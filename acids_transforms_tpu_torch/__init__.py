@@ -1,0 +1,28 @@
+"""acids_transforms_tpu_torch -- the PyTorch/CUDA port of ``acids_transforms_tpu``.
+
+Composable, invertible audio transforms as ``torch.nn.Module``s, with the hot
+paths (fused log-mel forward, its fit statistics, the Griffin-Lim step) as
+hand-written CUDA kernels for Hopper under ``csrc/``.  The port is built slice
+by slice; what is not ported yet raises ``NotImplementedError`` naming its
+ROADMAP item.
+
+Everything runs on a CUDA device unless the caller passes ``device="cpu"``:
+constructors take ``device=None`` meaning ``"cuda"`` and raise without a card.
+"""
+from . import convert, fuse, ops, transforms
+from ._device import resolve_device
+from .fuse import fuse_fit, fuse_forward
+from .transforms import *  # noqa: F401,F403
+from .transforms import __all__ as _transforms_all
+from .version import __version__
+
+__all__ = [
+    "transforms",
+    "ops",
+    "fuse",
+    "convert",
+    "fuse_forward",
+    "fuse_fit",
+    "resolve_device",
+    "__version__",
+] + list(_transforms_all)

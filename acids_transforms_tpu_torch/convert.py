@@ -1,0 +1,95 @@
+"""Weights and state carried across from the JAX package, as numpy arrays.
+
+A chain fitted in the JAX package hands over its array leaves (windows, mel
+bank and its inverse, the fitted normalizer's ``offset`` / ``scale``) keyed by
+child index and leaf name; :func:`load_jax_state` writes them into the
+buffers of a port chain of the same structure.  This module imports neither
+package: the caller extracts the leaves (``state_from_leaves`` takes what the
+JAX transforms' ``_tree_flatten`` returns, converted to numpy) and hands over
+plain arrays.
+
+Keys: ``"<child index>.<leaf>"`` with leaves ``window``, ``inv_window``
+(STFT); ``mel_bank``, ``inverse_mel_bank``, ``norm.offset``, ``norm.scale``
+(Magnitude); ``offset``, ``scale`` (Normalize); and the flag
+``"<child index>.needs_scaling"`` (and ``"<i>.norm.needs_scaling"``), 0 or 1.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from .transforms.base import AudioTransform, ComposeAudioTransform
+from .transforms.norm import Normalize
+from .transforms.stft import STFT
+
+__all__ = ["load_jax_state", "state_from_leaves"]
+
+
+def state_from_leaves(children: Sequence[Mapping[str, object]]) -> Dict[str, np.ndarray]:
+    """Flatten per-child leaf mappings into the keyed state.
+
+    ``children[i]`` maps leaf names of child ``i`` to arrays (anything
+    ``np.asarray`` takes), nested mappings for nested transforms (``{"norm":
+    {"offset": ..., "scale": ...}}``) and plain bools for flags.  ``None``
+    leaves (an unfitted or absent child) are skipped."""
+    state: Dict[str, np.ndarray] = {}
+
+    def put(prefix: str, node) -> None:
+        for name, val in node.items():
+            key = "%s.%s" % (prefix, name)
+            if val is None:
+                continue
+            if isinstance(val, Mapping):
+                put(key, val)
+            else:
+                state[key] = np.asarray(val)
+
+    for i, child in enumerate(children):
+        put(str(i), child)
+    return state
+
+
+def _set_buffer(mod: torch.nn.Module, name: str, value: np.ndarray) -> None:
+    old = mod._buffers[name]
+    new = torch.as_tensor(np.array(value), dtype=old.dtype, device=old.device)
+    if tuple(new.shape) != tuple(old.shape):
+        raise ValueError(
+            "%s.%s: shape %s does not fit the port's %s"
+            % (type(mod).__name__, name, tuple(new.shape), tuple(old.shape))
+        )
+    mod._buffers[name] = new
+
+
+def load_jax_state(port_chain: AudioTransform, state: Mapping[str, np.ndarray]) -> AudioTransform:
+    """Write ``state`` into ``port_chain``'s buffers in place and return it.
+
+    Raises on a key that names no buffer or flag of the chain, so a chain of
+    another structure cannot be loaded silently."""
+    children = (
+        list(port_chain.transforms)
+        if isinstance(port_chain, ComposeAudioTransform)
+        else [port_chain]
+    )
+    touched = set()
+    for key, value in state.items():
+        idx, _, path = key.partition(".")
+        mod = children[int(idx)]
+        *parents, leaf = path.split(".")
+        for p in parents:
+            mod = getattr(mod, p)
+        if leaf == "needs_scaling":
+            if isinstance(mod, Normalize):
+                mod.needs_scaling = bool(np.asarray(value))
+            elif bool(np.asarray(value)) != bool(mod.needs_scaling):
+                raise ValueError("%s: needs_scaling differs from the port's" % key)
+            continue
+        if leaf not in mod._buffers:
+            raise KeyError("%s names no buffer of %s" % (key, type(mod).__name__))
+        _set_buffer(mod, leaf, value)
+        touched.add(id(mod))
+    for child in children:
+        if isinstance(child, STFT) and id(child) in touched:
+            child._refresh_taps()
+    return port_chain

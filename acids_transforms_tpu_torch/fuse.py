@@ -1,0 +1,323 @@
+"""Chain fusion: dispatch recognized transform chains to a fused forward / fit
+(twin of the JAX ``fuse.py``, melspec pattern).
+
+``fuse_forward(chain)`` inspects a ``ComposeAudioTransform`` and, when the
+structure matches the hot mel-spectrogram pattern
+
+    [Mono?] + STFT + Magnitude
+
+returns a callable that computes the whole pipeline without materializing the
+complex spectrogram.  Any chain that does not match falls back to
+``chain.forward``.
+
+Backends:
+
+- ``"kernel"``: the hand-written CUDA kernel (``ops/cuda/spectral.py``):
+  chunk-DFT factorization + twiddle combine + taps conv + mel + contrast +
+  normalizer in one pass.  Needs a cosine-sum window, ``hop | n_fft`` and a
+  non-log contrast (``log``/``log10`` amplify the magnitude error without
+  bound near silent bins).  On a CPU tensor the same wrapper runs the kernel's
+  plain PyTorch version.
+- ``"eager"``: the fused-GEMM torch formulation (windowed frames against the
+  DFT matrices, magnitude, mel, contrast and normalizer on the real/imaginary
+  parts).
+- ``"auto"`` (default): per call, the kernel when the input lies on a CUDA
+  device and the chain is eligible, else the eager formulation.
+
+``fuse_fit`` is the same story for the *fit* pass: the kernel's statistics
+epilogue reduces the normalization statistics without writing the spectrogram.
+
+Not ported yet (ROADMAP Queue 1 items 7, 8, 12): the MFCC and stacked
+representation patterns and ``mesh=``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from .ops.cuda.spectral import (
+    fused_melspec,
+    fused_melspec_available,
+    fused_melspec_stats,
+)
+from .ops.fft import _resolve_impl, stft_real
+from .transforms.base import AudioTransform, ComposeAudioTransform
+from .transforms.norm import Normalize
+from .transforms.raw import Mono
+from .transforms.spectral_repr import Magnitude
+from .transforms.stft import STFT
+
+__all__ = ["fuse_forward", "fuse_fit", "fusable", "fit_fusable"]
+
+_BACKENDS = ("auto", "eager", "kernel")
+
+
+def _from_pcm(x: torch.Tensor) -> torch.Tensor:
+    """int16 PCM -> float32 as ``x / 32768``.  Exact: int16 -> float32 is
+    lossless and the power-of-two scale only shifts exponents, so everything
+    downstream is bit-identical to feeding the pre-converted float array."""
+    if x.dtype == torch.int16:
+        return x.to(torch.float32) * 2.0 ** -15
+    return x
+
+
+def _match_melspec(chain: AudioTransform, backend: str = "eager"):
+    """Return (mono, stft, magnitude) if the chain matches, else None."""
+    if not isinstance(chain, ComposeAudioTransform):
+        return None
+    ts = list(chain.transforms)
+    mono = None
+    if ts and type(ts[0]) is Mono:
+        mono = ts[0]
+        ts = ts[1:]
+    if len(ts) != 2:
+        return None
+    stft_t, mag_t = ts
+    if type(stft_t) is not STFT or type(mag_t) is not Magnitude:
+        return None
+    if _resolve_impl(stft_t.impl, stft_t.n_fft) != "matmul":
+        return None  # the fused formulation is the GEMM DFT
+    if mag_t.mel and mag_t.n_fft != stft_t.n_fft:
+        # mismatched bank: let the chain raise its own matmul shape error
+        return None
+    if backend == "kernel":
+        if not fused_melspec_available(stft_t.n_fft, stft_t.hop_length, stft_t._window_taps):
+            return None
+        if mag_t.contrast_mode in ("log", "log10"):
+            return None
+    return mono, stft_t, mag_t
+
+
+def fusable(chain: AudioTransform, backend: str = "auto") -> bool:
+    return _match_melspec(chain, "eager" if backend == "auto" else backend) is not None
+
+
+def _from_pcm_for_mono(mono: Mono, x: torch.Tensor) -> torch.Tensor:
+    """int16 PCM entering a ``Mono`` stage: mixing/normalizing needs float
+    arithmetic, so convert up front; every other Mono config is a
+    slice/squeeze, so the PCM dtype survives to the kernel's own convert."""
+    if x.dtype == torch.int16 and (
+        mono.normalize or (x.ndim >= 2 and x.shape[-2] == 2 and mono.mode == "mix")
+    ):
+        return _from_pcm(x)
+    return x
+
+
+def _norm_affine(norm):
+    """(offset, scale) of a Normalize / Dummy child."""
+    if isinstance(norm, Normalize):
+        return norm.offset, norm.scale
+    return 0.0, 1.0
+
+
+def _eager_fused(mono: Optional[Mono], stft_t: STFT, mag_t: Magnitude, out_dtype):
+    n_fft, hop = stft_t.n_fft, stft_t.hop_length
+
+    def forward(x: torch.Tensor) -> torch.Tensor:
+        x = _from_pcm(x)
+        if mono is not None:
+            x = mono.forward(x)
+        re, im = stft_real(
+            x, n_fft, hop, stft_t.window, impl=stft_t.impl, taps=stft_t._window_taps
+        )
+        # the tiny floor keeps the gradient finite at silent bins
+        # (d sqrt(0) = inf); its forward impact is ~1e-19
+        mag = torch.sqrt(torch.clamp_min(re * re + im * im, torch.finfo(torch.float32).tiny))
+        if mag_t.mel:
+            mag = torch.matmul(mag, mag_t.mel_bank)
+        mag = mag_t.norm.forward(mag_t.contrast(mag))
+        return mag_t._drop_nyquist(mag).to(out_dtype)
+
+    return forward
+
+
+def _kernel_fused(mono: Optional[Mono], stft_t: STFT, mag_t: Magnitude, out_dtype):
+    contrast = mag_t.contrast_mode or "none"
+    eager_forward = _eager_fused(mono, stft_t, mag_t, out_dtype)
+
+    def kernel_forward(x: torch.Tensor) -> torch.Tensor:
+        if mono is not None:
+            x = mono.forward(_from_pcm_for_mono(mono, x))
+        batch_shape = x.shape[:-1]
+        offset, scale = _norm_affine(mag_t.norm)
+        y = fused_melspec(
+            x.reshape((-1, x.shape[-1])),
+            stft_t.n_fft,
+            stft_t.hop_length,
+            mag_t.mel_bank if mag_t.mel else None,
+            offset,
+            scale,
+            contrast,
+            taps=stft_t._window_taps,
+            out_dtype=out_dtype,
+        )
+        return mag_t._drop_nyquist(y.reshape(batch_shape + y.shape[1:]))
+
+    class _Fused(torch.autograd.Function):
+        """The kernel has no backward kernel: its value is paired with the
+        gradient of the mathematically identical eager formulation."""
+
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return kernel_forward(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            (x,) = ctx.saved_tensors
+            with torch.enable_grad():
+                xin = x.detach().requires_grad_(True)
+                y = eager_forward(xin)
+            (gx,) = torch.autograd.grad(y, xin, g)
+            return gx
+
+    def forward(x: torch.Tensor) -> torch.Tensor:
+        if x.requires_grad:
+            return _Fused.apply(x)
+        return kernel_forward(x)
+
+    return forward
+
+
+def fuse_forward(
+    chain: AudioTransform,
+    backend: str = "auto",
+    out_dtype: torch.dtype = torch.float32,
+    mesh=None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Return the fused forward for ``chain`` (see module docs).
+
+    ``out_dtype`` (float32 or bfloat16) is the dtype of the returned
+    features: all arithmetic stays float32 and only the final store rounds,
+    exactly ``forward(x).to(torch.bfloat16)``.  Matched chains also accept
+    **int16 PCM** input, read as ``x / 32768``: bit-identical to
+    pre-converting.  An explicit ``backend="kernel"`` on a chain the kernel
+    does not cover raises.
+    """
+    if backend not in _BACKENDS:
+        raise ValueError("unknown fuse backend %r" % backend)
+    if mesh is not None:
+        raise NotImplementedError("fuse_forward(mesh=) is not ported yet (ROADMAP Queue 1 item 12)")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("fuse_forward: out_dtype must be float32 or bfloat16, got %s" % out_dtype)
+    if backend == "kernel":
+        match = _match_melspec(chain, "kernel")
+        if match is None:
+            raise ValueError(
+                "backend='kernel' requested but no fused kernel covers this "
+                "chain (needs a [Mono?] + STFT + Magnitude pattern with a "
+                "cosine-sum window, hop | n_fft, a non-log contrast and a "
+                "shape inside fused_melspec_available); use backend='auto' "
+                "to fall back"
+            )
+        return _kernel_fused(*match, out_dtype)
+    match = _match_melspec(chain, "eager")
+    if match is None:
+        if out_dtype == torch.float32:
+            return chain.forward
+
+        def _cast_fallback(x):
+            y = chain.forward(x)
+            if y.is_complex():
+                raise ValueError(
+                    "fuse_forward(out_dtype=%s): chain produces complex output; "
+                    "cast a real representation instead" % out_dtype
+                )
+            return y.to(out_dtype)
+
+        return _cast_fallback
+    eager = _eager_fused(*match, out_dtype)
+    if backend == "eager":
+        return eager
+    kmatch = _match_melspec(chain, "kernel")
+    if kmatch is None:
+        return eager
+    kernel = _kernel_fused(*kmatch, out_dtype)
+
+    def auto_forward(x: torch.Tensor) -> torch.Tensor:
+        return kernel(x) if x.is_cuda else eager(x)
+
+    return auto_forward
+
+
+def _match_fit(chain: AudioTransform):
+    """Like :func:`_match_melspec` for the *fit* pass.  Fit statistics are
+    taken on the non-mel contrasted magnitude, so the mel / keep_nyquist
+    options do not matter, only the framing and the contrast do."""
+    return _match_melspec(chain, backend="kernel")
+
+
+def _norm_from_stats(norm: Normalize, st: dict) -> Normalize:
+    """Fitted copy of a :class:`Normalize` from kernel-reduced statistics
+    (``st``: sum/sumsq/min/max scalars and the exact integer ``count``),
+    matching ``Normalize.fit``."""
+    if norm.mode == "unipolar":
+        offset = st["min"]
+        scale = st["max"] - st["min"]
+    elif norm.mode == "bipolar":
+        offset = (st["max"] + st["min"]) / 2.0
+        scale = st["max"] - offset
+    else:  # gaussian, in float64: sumsq - n mean^2 cancels badly in float32
+        n = float(st["count"])
+        s, ss = st["sum"].double(), st["sumsq"].double()
+        offset = s / n
+        var = torch.clamp_min(ss - n * offset * offset, 0.0)
+        scale = torch.clamp_min(torch.sqrt(var / max(n - 1.0, 1.0)), 1e-12)
+    return norm.with_stats(offset, scale)
+
+
+def fit_fusable(chain: AudioTransform) -> bool:
+    return _match_fit(chain) is not None
+
+
+def fuse_fit(
+    chain: AudioTransform, backend: str = "auto", mesh=None
+) -> Callable[..., AudioTransform]:
+    """Return a one-pass ``fit`` for a melspec chain.
+
+    The returned callable maps raw audio to a fitted copy of ``chain`` like
+    ``chain.fit(x)``, but the normalization statistics are reduced inside the
+    fused kernel (``ops/cuda/spectral.py:fused_melspec_stats``): neither the
+    framed signal nor the spectrogram is ever written out.  Matched chains
+    accept int16 PCM input.  ``backend="auto"`` takes the kernel for a CUDA
+    input on an eligible chain and ``chain.fit`` otherwise;
+    ``backend="kernel"`` forces the statistics path (its plain PyTorch version
+    on a CPU tensor) and raises on a chain it does not cover.  A ``mask``
+    always takes the exact cascade.
+    """
+    if backend not in ("auto", "kernel"):
+        raise ValueError("unknown fuse_fit backend %r" % backend)
+    if mesh is not None:
+        raise NotImplementedError("fuse_fit(mesh=) is not ported yet (ROADMAP Queue 1 item 12)")
+    match = _match_fit(chain)
+    if match is None:
+        if backend == "kernel":
+            raise ValueError(
+                "backend='kernel' requested but the fused fit does not cover "
+                "this chain (see fuse_forward); use backend='auto'"
+            )
+        return chain.fit
+    mono, stft_t, mag_t = match
+    norm = mag_t.norm
+    if not (isinstance(norm, Normalize) and norm.mode is not None):
+        return chain.fit  # nothing to fit on this pattern
+
+    def fit(x: torch.Tensor, mask=None) -> AudioTransform:
+        if mask is not None or (backend == "auto" and not x.is_cuda):
+            return chain.fit(_from_pcm(x), mask=mask)
+        y = mono.forward(_from_pcm_for_mono(mono, x)) if mono is not None else x
+        st = fused_melspec_stats(
+            y.reshape((-1, y.shape[-1])),
+            stft_t.n_fft,
+            stft_t.hop_length,
+            mag_t.contrast_mode or "none",
+            taps=stft_t._window_taps,
+        )
+        new_mag = mag_t.replace(norm=_norm_from_stats(norm, st))
+        # Mono/STFT fits are no-ops in the matched pattern; only the
+        # Magnitude's norm carries fitted state.
+        children = [new_mag if t is mag_t else t for t in chain.transforms]
+        return ComposeAudioTransform(transforms=children, sr=chain.sr, device=chain.device)
+
+    return fit

@@ -1,0 +1,18 @@
+"""Numerical kernels of the port: framing, windows, DFT-as-GEMM STFT, mel,
+Griffin-Lim, and the hand-written CUDA kernels under ``ops.cuda``."""
+from . import fft, framing, griffinlim, mel, windows
+from .fft import istft, stft
+from .framing import frame, overlap_add, pad_axis
+
+__all__ = [
+    "fft",
+    "framing",
+    "griffinlim",
+    "mel",
+    "windows",
+    "stft",
+    "istft",
+    "frame",
+    "overlap_add",
+    "pad_axis",
+]

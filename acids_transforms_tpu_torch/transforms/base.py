@@ -1,0 +1,270 @@
+"""Core transform protocol: composable, invertible audio transforms as
+``torch.nn.Module``s (twin of the JAX ``transforms/base.py``).
+
+* Array state (windows, filterbanks, fitted normalizer statistics) are
+  registered buffers, nested transforms are sub-modules, everything else
+  (sample rate, mode strings, sizes) is plain attributes.
+* ``fit(x)`` is pure: it returns a fitted copy.  ``scale_data(x)`` fits in
+  place.
+* Random inversion modes take an explicit ``torch.Generator`` where the JAX
+  package takes a PRNG key.
+* Every transform is built for one device (``device=None`` means ``"cuda"``
+  and raises without a card); an input on another device raises.
+
+The streaming protocol (``init_state`` / ``step``) is not ported yet (ROADMAP
+Queue 1 item 9).
+"""
+from __future__ import annotations
+
+import copy
+from typing import List, Optional, Sequence
+
+import torch
+from torch import nn
+
+from .._device import check_device, resolve_device
+
+__all__ = [
+    "AudioTransform",
+    "ComposeAudioTransform",
+    "NotInvertibleError",
+    "InversionEnumType",
+]
+
+
+class NotInvertibleError(Exception):
+    """Raised when ``invert`` is called on a non-invertible transform."""
+
+
+#: type of ``inversion_mode`` arguments
+InversionEnumType = Optional[str]
+
+
+class AudioTransform(nn.Module):
+    """Base class for composable, invertible audio transforms.
+
+    Capability flags:
+
+    * ``invertible``  -- ``invert`` reconstructs the input (possibly phaseless).
+    * ``scriptable``  -- forward/invert are static-shape tensor programs.
+    * ``needs_scaling`` -- requires a ``fit``/``scale_data`` statistics pass
+      before ``forward`` is meaningful.
+    """
+
+    invertible: bool = True
+    scriptable: bool = True
+    needs_scaling: bool = False
+
+    def __init__(self, sr: int = 44100, device=None):
+        super().__init__()
+        self.sr = int(sr)
+        self.device = resolve_device(device)
+
+    def _check(self, x: torch.Tensor) -> None:
+        check_device(x, self.device, "input of %s" % type(self).__name__)
+
+    def replace(self, **updates) -> "AudioTransform":
+        """Return a copy of this transform with the given attributes replaced."""
+        new = copy.deepcopy(self)
+        for k, v in updates.items():
+            setattr(new, k, v)
+        return new
+
+    # ----------------------------------------------------------------- compose
+    def __add__(self, other: "AudioTransform") -> "ComposeAudioTransform":
+        if isinstance(other, ComposeAudioTransform):
+            return ComposeAudioTransform(transforms=[self] + list(other.transforms))
+        if isinstance(other, AudioTransform):
+            return ComposeAudioTransform(transforms=[self, other])
+        raise TypeError("AudioTransform cannot be added to type: %s" % type(other))
+
+    # --------------------------------------------------------------------- api
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Apply the transform (identity by default)."""
+        return x
+
+    def invert(
+        self,
+        x: torch.Tensor,
+        inversion_mode: Optional[str] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Invert the transform (identity by default)."""
+        return x
+
+    # ------------------------------------------------------------------ fitting
+    def fit(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> "AudioTransform":
+        """Pure fit: return a transform whose statistics are fitted on ``x``.
+        Default: nothing to fit.  ``mask`` (broadcastable to ``x``; 1 = real
+        data) excludes padding from the statistics."""
+        return self
+
+    def propagate_mask(self, mask: Optional[torch.Tensor], x: torch.Tensor):
+        """Map a validity mask of the input ``x`` to the mask of the output
+        (default: the transform preserves layout)."""
+        return mask
+
+    def scale_data(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> None:
+        """In-place fit: runs :meth:`fit` and adopts the fitted state."""
+        fitted = self.fit(x, mask=mask)
+        if fitted is not self:
+            self.__dict__.update(fitted.__dict__)
+
+    @property
+    def ratio(self) -> int:
+        """Per-sample -> per-frame decimation factor."""
+        return 1
+
+    def get_inversion_modes(self) -> Optional[List[str]]:
+        return None
+
+    #: every inversion-mode name any transform understands -- distinguishes
+    #: "mode meant for another child in the chain" from a typo in
+    #: :meth:`_resolve_mode`.  Open registry: see
+    #: :meth:`register_inversion_modes`.
+    _KNOWN_INVERSION_MODES = {
+        "mono", "stereo", "crop",
+        "griffin_lim", "keep_input", "random", "sinebank",
+        "pghi", "pghi_bidir", "pghi_exact", "pghi_gl",
+    }
+
+    @classmethod
+    def register_inversion_modes(cls, *modes: str) -> None:
+        """Declare custom inversion-mode names as known, so that chains
+        broadcast them past children that do not handle them."""
+        AudioTransform._KNOWN_INVERSION_MODES.update(str(m) for m in modes)
+
+    def _resolve_mode(self, inversion_mode: Optional[str]) -> Optional[str]:
+        """Resolve a requested inversion mode against this transform's own.
+
+        Chains broadcast one ``inversion_mode`` to every child; a mode that
+        belongs to another transform type falls back to this transform's
+        configured default.  A string no transform knows raises (typo
+        protection)."""
+        modes = self.get_inversion_modes() or []
+        if inversion_mode is not None:
+            if inversion_mode in modes:
+                return inversion_mode
+            if inversion_mode not in self._KNOWN_INVERSION_MODES:
+                raise ValueError(
+                    "inversion mode %r not valid (known: %s)"
+                    % (inversion_mode, sorted(self._KNOWN_INVERSION_MODES))
+                )
+        return getattr(self, "inversion_mode", None)
+
+    def extra_repr(self) -> str:
+        skip = {"training", "device"}
+        return ", ".join(
+            f"{k}={v!r}"
+            for k, v in self.__dict__.items()
+            if not k.startswith("_") and k not in skip
+        )
+
+
+class ComposeAudioTransform(AudioTransform):
+    """Chain of transforms built with ``+``.
+
+    * capability flags fold over children (AND for invertible/scriptable, OR
+      for needs_scaling);
+    * ``forward`` folds left, ``invert`` folds **right** with a shared
+      ``inversion_mode`` handed to every child;
+    * ``fit`` is the fit-then-advance cascade.
+    """
+
+    def __init__(self, transforms: Sequence[AudioTransform] = (), sr: int = 44100, device=None):
+        transforms = list(transforms)
+        if device is None and transforms:
+            device = transforms[0].device
+        super().__init__(sr=sr, device=device)
+        for t in transforms:
+            if t.device != self.device:
+                raise ValueError(
+                    "cannot compose transforms built for different devices "
+                    "(%s and %s)" % (self.device, t.device)
+                )
+        self.transforms = nn.ModuleList(transforms)
+        self._register_child_modes()
+
+    def _register_child_modes(self) -> None:
+        # a shared mode string broadcast by invert() must be recognized by
+        # siblings that do not own it
+        for t in self.transforms:
+            modes = t.get_inversion_modes()
+            if modes and isinstance(modes[0], str):
+                AudioTransform._KNOWN_INVERSION_MODES.update(modes)
+
+    @property
+    def invertible(self) -> bool:
+        return all(t.invertible for t in self.transforms)
+
+    @property
+    def scriptable(self) -> bool:
+        return all(t.scriptable for t in self.transforms)
+
+    @property
+    def needs_scaling(self) -> bool:
+        return any(t.needs_scaling for t in self.transforms)
+
+    def __getitem__(self, item):
+        return self.transforms[item]
+
+    def __len__(self):
+        return len(self.transforms)
+
+    def __add__(self, other):
+        if not isinstance(other, AudioTransform):
+            raise TypeError("ComposeAudioTransform can only be added to other AudioTransforms")
+        if isinstance(other, ComposeAudioTransform):
+            return ComposeAudioTransform(list(self.transforms) + list(other.transforms))
+        return ComposeAudioTransform(list(self.transforms) + [other])
+
+    def __radd__(self, other):
+        if not isinstance(other, AudioTransform):
+            raise TypeError("ComposeAudioTransform can only be added to other AudioTransforms")
+        if isinstance(other, ComposeAudioTransform):
+            return ComposeAudioTransform(list(other.transforms) + list(self.transforms))
+        return ComposeAudioTransform([other] + list(self.transforms))
+
+    @property
+    def ratio(self) -> int:
+        ratio = 1
+        for t in self.transforms:
+            ratio = ratio * t.ratio
+        return ratio
+
+    def fit(self, x: torch.Tensor, mask=None) -> "ComposeAudioTransform":
+        fitted = []
+        for t in self.transforms:
+            t = t.fit(x, mask=mask)
+            fitted.append(t)
+            mask = t.propagate_mask(mask, x)
+            x = t.forward(x)
+        return ComposeAudioTransform(transforms=fitted, sr=self.sr, device=self.device)
+
+    def propagate_mask(self, mask, x):
+        for t in self.transforms:
+            mask = t.propagate_mask(mask, x)
+            x = t.forward(x)
+        return mask
+
+    def scale_data(self, x: torch.Tensor, mask=None) -> None:
+        for t in self.transforms:
+            t.scale_data(x, mask=mask)
+            mask = t.propagate_mask(mask, x)
+            x = t.forward(x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for t in self.transforms:
+            x = t.forward(x)
+        return x
+
+    def invert(self, x, inversion_mode=None, generator=None):
+        self._register_child_modes()
+        for t in reversed(list(self.transforms)):
+            x = t.invert(x, inversion_mode=inversion_mode, generator=generator)
+        return x
+
+    def get_inversion_modes(self, idx: Optional[int] = None):
+        if idx is None:
+            return [t.get_inversion_modes() for t in self.transforms]
+        return self.transforms[idx].get_inversion_modes()

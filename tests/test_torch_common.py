@@ -1,0 +1,95 @@
+"""Shared helpers of the ``test_torch_*`` files: the same numpy inputs go
+through the JAX package and through its PyTorch port (``device="cpu"``, where
+the port's kernel wrappers run their plain PyTorch versions), and the fitted
+state of a JAX chain is handed to the port as numpy arrays.
+"""
+import numpy as np
+import torch
+
+import acids_transforms_tpu.transforms as JT
+import acids_transforms_tpu_torch.transforms as PT
+from acids_transforms_tpu_torch.convert import load_jax_state, state_from_leaves
+
+torch.set_num_threads(1)
+
+N_FFT, HOP, SR = 512, 128, 44100
+
+
+def make_audio(seed: int, batch: int = 2, n: int = 9000, channels: int = 2) -> np.ndarray:
+    """Seeded stereo test audio: harmonics with a decaying noise burst."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / SR
+    x = np.zeros((batch, channels, n))
+    for b in range(batch):
+        f0 = rng.uniform(150, 900)
+        for h in range(1, 5):
+            x[b] += np.sin(2 * np.pi * h * f0 * t + rng.uniform(0, 6.28, (channels, 1))) / h
+        x[b] += 0.3 * np.exp(-t * 30) * rng.standard_normal((channels, n))
+    x += 0.01 * rng.standard_normal(x.shape)
+    return (0.5 * x / np.abs(x).max()).astype(np.float32)
+
+
+def rel(a, b) -> float:
+    """max-abs of the difference over max-abs of the reference ``b``."""
+    a, b = np.asarray(a), np.asarray(b)
+    wide = np.complex128 if np.iscomplexobj(a) or np.iscomplexobj(b) else np.float64
+    a, b = a.astype(wide), b.astype(wide)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def t2n(x: torch.Tensor) -> np.ndarray:
+    return x.detach().to(torch.float32).cpu().numpy() if not x.is_complex() else x.detach().cpu().numpy()
+
+
+def chains(n_fft=N_FFT, hop=HOP, window="hann", gl_iterations=6, **mag_kw):
+    """The flagship chain in both packages, unfitted."""
+    kw = dict(mode="unipolar", contrast="log1p", mel=True, n_fft=n_fft)
+    kw.update(mag_kw)
+    jc = JT.Mono() + JT.STFT(n_fft=n_fft, hop_length=hop, window=window,
+                             gl_iterations=gl_iterations) + JT.Magnitude(**kw)
+    pc = PT.Mono(device="cpu") + PT.STFT(
+        n_fft=n_fft, hop_length=hop, window=window, gl_iterations=gl_iterations, device="cpu"
+    ) + PT.Magnitude(device="cpu", **kw)
+    return jc, pc
+
+
+def _leaves_of(t):
+    """Array leaves of one JAX transform as nested numpy mappings, taken from
+    its pytree flattening (``transforms/base.py:_tree_flatten``)."""
+    leaves, _ = t._tree_flatten()
+    out = {}
+    for name, leaf in zip(type(t)._leaves, leaves):
+        if name == "rng":
+            continue  # PRNG keys do not carry across frameworks
+        if isinstance(leaf, JT.AudioTransform):
+            sub = _leaves_of(leaf)
+            out[name] = sub if sub else None
+        else:
+            out[name] = np.asarray(leaf)
+    if isinstance(t, JT.Normalize):
+        out["needs_scaling"] = bool(t.needs_scaling)
+    return out
+
+
+def jax_state(jchain):
+    """The keyed numpy state ``convert.load_jax_state`` takes."""
+    children = jchain.transforms if isinstance(jchain, JT.ComposeAudioTransform) else [jchain]
+    return state_from_leaves([_leaves_of(t) for t in children])
+
+
+def carry_over(jchain, pchain):
+    """Load the JAX chain's leaves into the port chain (in place)."""
+    return load_jax_state(pchain, jax_state(jchain))
+
+
+def test_state_keys_of_the_flagship_chain():
+    jc, pc = chains()
+    x = make_audio(0)
+    import jax.numpy as jnp
+
+    st = jax_state(jc.fit(jnp.asarray(x)))
+    assert set(st) == {
+        "1.window", "1.inv_window", "2.mel_bank", "2.inverse_mel_bank",
+        "2.norm.offset", "2.norm.scale", "2.norm.needs_scaling",
+    }
+    assert not bool(st["2.norm.needs_scaling"])

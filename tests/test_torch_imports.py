@@ -1,0 +1,107 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and it
+runs on the card unless the caller asks for the CPU."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "acids_transforms_tpu_torch"
+
+
+def _imported_modules(path: pathlib.Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    code = (
+        "import sys\n"
+        "import acids_transforms_tpu_torch as att\n"
+        "import acids_transforms_tpu_torch.ops.cuda.spectral, acids_transforms_tpu_torch.ops.cuda.glstep\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'jaxlib' or m.startswith('acids_transforms_tpu.') or m == 'acids_transforms_tpu']\n"
+        "assert not bad, bad\n"
+        "assert 'triton' not in sys.modules\n"
+        "print('clean', att.__version__)\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert res.returncode == 0, res.stderr
+    assert "clean" in res.stdout
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_source_names_no_jax_module(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "acids_transforms_tpu", "triton"), (path, mod)
+
+
+def test_default_device_raises_without_a_card():
+    import torch
+
+    import acids_transforms_tpu_torch as att
+    from acids_transforms_tpu_torch import transforms as T
+
+    if torch.cuda.is_available():
+        assert att.resolve_device(None).type == "cuda"
+        return
+    for build in (
+        lambda: T.Mono(),
+        lambda: T.STFT(n_fft=512, hop_length=128),
+        lambda: T.Magnitude(n_fft=512),
+        lambda: T.Normalize("unipolar"),
+        lambda: att.resolve_device(None),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    assert att.resolve_device("cpu").type == "cpu"
+
+
+def test_input_on_another_device_raises():
+    import torch
+
+    from acids_transforms_tpu_torch import transforms as T
+
+    t = T.STFT(n_fft=512, hop_length=128, device="cpu")
+    x = torch.zeros(2, 2000, device="meta")
+    with pytest.raises(ValueError, match="lies on"):
+        t.forward(x)
+    with pytest.raises(ValueError, match="different devices"):
+        other = T.Mono(device="cpu")
+        other.device = torch.device("meta")
+        other + t
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the script would run its full course")
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_kernel_sources_are_in_the_package():
+    names = {p.name for p in (PORT / "csrc").iterdir()}
+    assert {"spectral.cu", "glstep.cu", "dft_common.cuh"} <= names
+    for name in ("spectral.cu", "glstep.cu"):
+        text = (PORT / "csrc" / name).read_text()
+        assert "Replaces" in text and "What bounds" in text and "Design" in text
