@@ -13,10 +13,13 @@
 // the angles at the nyquist bin is ignored (as the TPU kernel's layout for
 // n_fft % 256 == 0 does); at DC it enters the taps conv like any bin.
 //
-// What bounds it on this card: operations.  Per frame and iteration the two
-// chunk products are 4 * hop * F fp32 multiply-adds (0.53 M at hop 256,
-// F 513) against 9 float arrays of F values moved (18 KB), about 57 flop per
-// byte, above the fp32 ridge of 20 flop/byte.
+// What bounds it on this card: the function itself is bound by bytes (9
+// float arrays of F values moved per frame, 18 KB, against the two FFTs an
+// iteration needs, about 5 n_fft log2 n_fft operations).  This design is
+// not: it keeps the chunk products of the kernel it replaces, 4 * hop * F
+// fp32 multiply-adds per frame and iteration (0.53 M at hop 256, F 513),
+// about 57 flop per byte, above the fp32 ridge of 20 flop/byte, so its own
+// ceiling is the card's fp32 FMA rate.
 //
 // Design: a block owns one batch row and `tile_t` output frames, and
 // recomputes its own halo (chain * (overlap - 1) frames per side), so blocks
@@ -26,8 +29,8 @@
 // tiles of 32 with its operands staged through shared memory one tile ahead
 // of the multiply-adds; the analysis side is the front end shared with the
 // forward kernel (dft_common.cuh).  Rows are walked in groups of 32; the
-// wrapper picks `tile_t` so that halo recomputation and partly filled groups
-// cost least.
+// wrapper picks the largest `tile_t` that fits shared memory and evens it
+// out over the tiles, which keeps the halo's share of the work smallest.
 // With chain >= 2 the same body runs `chain` times over a shrinking window;
 // the intermediate angles and the previous projection do not fit shared
 // memory at F = 513 (4 arrays of (tile_t + 2 halo) x F floats), so they go
@@ -36,10 +39,10 @@
 // another block's scratch.
 //
 // Arithmetic is fp32 FMA with fp32 accumulation: no tensor cores yet.  What
-// keeps it from the bound: one block of 8 warps per SM (the window's samples
+// keeps it from that ceiling: one block of 8 warps per SM (the window's samples
 // and the staged operands fill shared memory), so latency is hidden by
 // instruction-level parallelism only; chaining recomputes the halo, which
-// costs operations, the very thing that bounds the kernel.
+// costs operations, the very thing this design is short of.
 #include <math.h>
 
 #include "dft_common.cuh"

@@ -6,18 +6,23 @@
 //   stats_reduce_kernel     <- the accumulation the TPU kernel carried across its
 //                              sequential grid (_stats_update)
 //
-// What bounds them on this card: operations.  Per frame the chunk DFT is
-// 2 * hop * F fp32 multiply-adds (0.26 M at hop 256, F 513) against
-// 4 * hop bytes read and 4 * M bytes written, about 85 flop per byte, above
-// the fp32 ridge of the card (67 TFLOP/s over 3.35 TB/s = 20 flop/byte).
+// What bounds them on this card: the function itself is bound by bytes (an
+// FFT needs about 2.5 n_fft log2 n_fft operations per frame, far below the
+// fp32 ridge of 67 TFLOP/s over 3.35 TB/s = 20 flop/byte).  This design is
+// not: it keeps the chunk-DFT product of the kernel it replaces, 2 * hop * F
+// fp32 multiply-adds per chunk (0.26 M at hop 256, F 513) against 4 * hop
+// bytes read and 4 * M bytes written, about 85 flop per byte, so its own
+// ceiling is the card's fp32 FMA rate.
 //
-// Design: a block owns one batch row and 32 frames.  It loads the 32 +
-// overlap - 1 hop chunks once into shared memory (int16 PCM is converted
+// Design: a block owns one batch row and `tile_t` frames: 32, or 16 or 8
+// where 32 frames of magnitudes do not fit shared memory (n_fft 2048 and
+// 4096); the wrapper picks.  It loads the tile_t + overlap - 1 hop chunks
+// once into shared memory (int16 PCM is converted
 // there, x * 2^-15, so the result is bit-identical to pre-converted float
 // input), runs the chunk DFT in column tiles of 128 bins (halo included)
 // with the basis staged through shared memory one chunk ahead of the
 // multiply-adds, combines with the twiddles, applies the
-// window as the hermitian taps conv and keeps the (32, F) magnitudes in
+// window as the hermitian taps conv and keeps the (tile_t, F) magnitudes in
 // shared memory.  The mel product then reads them from there: the bank is
 // banded, so each output column sums only over its nonzero rows [lo, hi),
 // which equals the dense product.  Nothing but the input rows and the
@@ -27,7 +32,7 @@
 // is deterministic (no float atomics).
 //
 // Arithmetic is fp32 FMA with fp32 accumulation: no tensor cores yet.  What
-// keeps it from the bound: one block of 8 warps per SM (the magnitudes take
+// keeps it from that ceiling: one block of 8 warps per SM (the magnitudes take
 // 66 KB of shared memory at F = 513), so shared-memory latency is hidden by
 // instruction-level parallelism only; 128-column tiles cover 513 bins with
 // 20 % waste, 40-row tiles hold 35 rows.
@@ -38,16 +43,16 @@
 
 namespace att {
 
-// Magnitudes (or powers) of one block's 32 frames into mag_s[t * F + k].
+// Magnitudes (or powers) of one block's tile_t frames into mag_s[t * F + k].
 template <bool kInt16>
 __device__ void block_magnitudes(const void* __restrict__ x_rows, long long b, int tile,
-                                 int n_rows_total, int hop, int overlap, int F,
+                                 int tile_t, int n_rows_total, int hop, int overlap, int F,
                                  const float* bcos, const float* bsin, const float* twr,
                                  const float* twi, Taps taps, bool power2, float* xs,
                                  float* mag_s, AnaWork w) {
     const int tid = threadIdx.x;
-    const int n_rows = kRowGroup + overlap - 1;
-    const size_t row0 = (size_t)b * n_rows_total + (size_t)tile * kRowGroup;
+    const int n_rows = tile_t + overlap - 1;
+    const size_t row0 = (size_t)b * n_rows_total + (size_t)tile * tile_t;
     const size_t n_el = (size_t)n_rows * hop;
     if (kInt16) {
         const int16_t* src = reinterpret_cast<const int16_t*>(x_rows) + row0 * hop;
@@ -66,9 +71,9 @@ __device__ void block_magnitudes(const void* __restrict__ x_rows, long long b, i
     const int useful = kColTile - 2 * P;
     const int n_ct = n_col_tiles(F, P);
     for (int ct = 0; ct < n_ct; ++ct) {
-        analysis_tile(xs, n_rows, kRowGroup, hop, overlap, F, ct, P, bcos, bsin, twr, twi, w);
+        analysis_tile(xs, n_rows, tile_t, hop, overlap, F, ct, P, bcos, bsin, twr, twi, w);
         const int k0 = ct * useful;
-        for (int idx = tid; idx < kRowGroup * useful; idx += kThreads) {
+        for (int idx = tid; idx < tile_t * useful; idx += kThreads) {
             int t = idx / useful;
             int cu = idx - t * useful;
             int k = k0 + cu;
@@ -87,50 +92,34 @@ __device__ __forceinline__ float contrast_of(float v, int contrast) {
     return contrast == 1 ? log1pf(v) : v;
 }
 
-template <bool kInt16, bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-melspec_forward_kernel(const void* __restrict__ x_rows, int n_tiles, int n_rows_total,
-                       int hop, int overlap, int F, int T, const float* bcos,
-                       const float* bsin, const float* twr, const float* twi, Taps taps,
-                       int power2, int contrast, const float* __restrict__ mel_bank,
-                       const int* __restrict__ mel_lo, const int* __restrict__ mel_hi,
-                       int M, const float* __restrict__ aff, void* __restrict__ out) {
-    extern __shared__ __align__(16) float smem[];
-    const int n_rows = kRowGroup + overlap - 1;
-    float* xs = smem;
-    float* mag_s = xs + (size_t)n_rows * hop;
-    AnaWork w = carve_ana(mag_s + (size_t)kRowGroup * F);
-
-    const long long blk = blockIdx.x;
-    const long long b = blk / n_tiles;
-    const int tile = (int)(blk - b * n_tiles);
-    block_magnitudes<kInt16>(x_rows, b, tile, n_rows_total, hop, overlap, F, bcos, bsin,
-                             twr, twi, taps, power2 != 0, xs, mag_s, w);
-
-    const float offset = aff[0];
-    const float scale = aff[1];
-    const int t_base = tile * kRowGroup;
-    const int t_valid = min(kRowGroup, T - t_base);
+// Mel product (banded), contrast, affine and store of one block's kTile
+// frames; a thread owns output columns and keeps its kTile sums in registers.
+template <int kTile, bool kBf16>
+__device__ void emit_tile(const float* mag_s, long long b, int t_base, int F, int T,
+                          int contrast, const float* __restrict__ mel_bank,
+                          const int* __restrict__ mel_lo, const int* __restrict__ mel_hi,
+                          int M, float offset, float scale, void* __restrict__ out) {
+    const int t_valid = min(kTile, T - t_base);
     const int n_out = mel_bank != nullptr ? M : F;
     for (int m = threadIdx.x; m < n_out; m += kThreads) {
-        float acc[kRowGroup];
+        float acc[kTile];
         if (mel_bank != nullptr) {
 #pragma unroll
-            for (int t = 0; t < kRowGroup; ++t) acc[t] = 0.0f;
+            for (int t = 0; t < kTile; ++t) acc[t] = 0.0f;
             const int lo = mel_lo[m], hi = mel_hi[m];
             for (int f = lo; f < hi; ++f) {
                 float bv = __ldg(mel_bank + (size_t)f * M + m);
 #pragma unroll
-                for (int t = 0; t < kRowGroup; ++t) {
+                for (int t = 0; t < kTile; ++t) {
                     acc[t] = fmaf(mag_s[t * F + f], bv, acc[t]);
                 }
             }
         } else {
 #pragma unroll
-            for (int t = 0; t < kRowGroup; ++t) acc[t] = mag_s[t * F + m];
+            for (int t = 0; t < kTile; ++t) acc[t] = mag_s[t * F + m];
         }
 #pragma unroll
-        for (int t = 0; t < kRowGroup; ++t) {
+        for (int t = 0; t < kTile; ++t) {
             if (t < t_valid) {
                 float y = (contrast_of(acc[t], contrast) - offset) / scale;
                 size_t o = ((size_t)b * T + (t_base + t)) * n_out + m;
@@ -144,26 +133,65 @@ melspec_forward_kernel(const void* __restrict__ x_rows, int n_tiles, int n_rows_
     }
 }
 
-template <bool kInt16>
+template <bool kInt16, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
-melspec_stats_kernel(const void* __restrict__ x_rows, int n_tiles, int n_rows_total, int hop,
-                     int overlap, int F, int T, const float* bcos, const float* bsin,
-                     const float* twr, const float* twi, Taps taps, int contrast,
-                     float* __restrict__ partials) {
+melspec_forward_kernel(const void* __restrict__ x_rows, int n_tiles, int tile_t,
+                       int n_rows_total, int hop, int overlap, int F, int T,
+                       const float* bcos, const float* bsin, const float* twr,
+                       const float* twi, Taps taps, int power2, int contrast,
+                       const float* __restrict__ mel_bank, const int* __restrict__ mel_lo,
+                       const int* __restrict__ mel_hi, int M, const float* __restrict__ aff,
+                       void* __restrict__ out) {
     extern __shared__ __align__(16) float smem[];
-    const int n_rows = kRowGroup + overlap - 1;
+    const int n_rows = tile_t + overlap - 1;
     float* xs = smem;
     float* mag_s = xs + (size_t)n_rows * hop;
-    AnaWork w = carve_ana(mag_s + (size_t)kRowGroup * F);
+    AnaWork w = carve_ana(mag_s + (size_t)tile_t * F);
 
     const long long blk = blockIdx.x;
     const long long b = blk / n_tiles;
     const int tile = (int)(blk - b * n_tiles);
-    block_magnitudes<kInt16>(x_rows, b, tile, n_rows_total, hop, overlap, F, bcos, bsin,
-                             twr, twi, taps, false, xs, mag_s, w);
+    block_magnitudes<kInt16>(x_rows, b, tile, tile_t, n_rows_total, hop, overlap, F, bcos,
+                             bsin, twr, twi, taps, power2 != 0, xs, mag_s, w);
+
+    const float offset = aff[0];
+    const float scale = aff[1];
+    const int t_base = tile * tile_t;
+    switch (tile_t) {
+        case 32:
+            emit_tile<32, kBf16>(mag_s, b, t_base, F, T, contrast, mel_bank, mel_lo, mel_hi, M,
+                                 offset, scale, out);
+            break;
+        case 16:
+            emit_tile<16, kBf16>(mag_s, b, t_base, F, T, contrast, mel_bank, mel_lo, mel_hi, M,
+                                 offset, scale, out);
+            break;
+        default:
+            emit_tile<8, kBf16>(mag_s, b, t_base, F, T, contrast, mel_bank, mel_lo, mel_hi, M,
+                                offset, scale, out);
+    }
+}
+
+template <bool kInt16>
+__global__ void __launch_bounds__(kThreads)
+melspec_stats_kernel(const void* __restrict__ x_rows, int n_tiles, int tile_t,
+                     int n_rows_total, int hop, int overlap, int F, int T, const float* bcos, const float* bsin,
+                     const float* twr, const float* twi, Taps taps, int contrast,
+                     float* __restrict__ partials) {
+    extern __shared__ __align__(16) float smem[];
+    const int n_rows = tile_t + overlap - 1;
+    float* xs = smem;
+    float* mag_s = xs + (size_t)n_rows * hop;
+    AnaWork w = carve_ana(mag_s + (size_t)tile_t * F);
+
+    const long long blk = blockIdx.x;
+    const long long b = blk / n_tiles;
+    const int tile = (int)(blk - b * n_tiles);
+    block_magnitudes<kInt16>(x_rows, b, tile, tile_t, n_rows_total, hop, overlap, F, bcos,
+                             bsin, twr, twi, taps, false, xs, mag_s, w);
 
     // frames past T are tile padding: they stay out of the statistics
-    const int t_valid = min(kRowGroup, T - tile * kRowGroup);
+    const int t_valid = min(tile_t, T - tile * tile_t);
     float* dst = partials + (size_t)blk * 4 * F;
     for (int k = threadIdx.x; k < F; k += kThreads) {
         float s = 0.0f, ss = 0.0f, mn = INFINITY, mx = -INFINITY;
@@ -212,8 +240,8 @@ stats_reduce_kernel(const float* __restrict__ partials, long long n_blocks, int 
     }
 }
 
-static size_t forward_smem_bytes(int hop, int overlap, int F) {
-    size_t floats = (size_t)(kRowGroup + overlap - 1) * hop + (size_t)kRowGroup * F +
+static size_t forward_smem_bytes(int tile_t, int hop, int overlap, int F) {
+    size_t floats = (size_t)(tile_t + overlap - 1) * hop + (size_t)tile_t * F +
                     ana_work_floats();
     return floats * sizeof(float);
 }
@@ -236,15 +264,15 @@ static cudaError_t allow_smem(K kernel, size_t bytes) {
 extern "C" {
 
 // Shared memory one block of the forward / statistics kernel needs.
-long long att_melspec_smem_bytes(int hop, int overlap, int F) {
-    return (long long)att::forward_smem_bytes(hop, overlap, F);
+long long att_melspec_smem_bytes(int tile_t, int hop, int overlap, int F) {
+    return (long long)att::forward_smem_bytes(tile_t, hop, overlap, F);
 }
 
 const char* att_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// x_rows: (B, n_rows_total, hop) float32 or int16, n_rows_total >= n_tiles * 32 +
-// overlap - 1.  out: (B, T, M or F) float32 or bfloat16.  Returns a cudaError_t.
-int att_melspec_forward(const void* x_rows, int x_int16, long long B, int n_tiles,
+// x_rows: (B, n_rows_total, hop) float32 or int16, n_rows_total >= n_tiles * tile_t +
+// overlap - 1, tile_t one of 32, 16, 8.  out: (B, T, M or F) float32 or bfloat16.  Returns a cudaError_t.
+int att_melspec_forward(const void* x_rows, int x_int16, long long B, int n_tiles, int tile_t,
                         int n_rows_total, int hop, int overlap, int F, int T,
                         const float* bcos, const float* bsin, const float* twr,
                         const float* twi, const float* taps_host, int P, int power2,
@@ -252,11 +280,11 @@ int att_melspec_forward(const void* x_rows, int x_int16, long long B, int n_tile
                         const int* mel_hi, int M, const float* aff, void* out, int out_bf16,
                         void* stream) {
     using namespace att;
-    if (P < 0 || P >= kMaxTaps || overlap < 1 || kRowGroup + overlap - 1 > kMaxRows ||
-        hop % kKC != 0) {
+    if (P < 0 || P >= kMaxTaps || overlap < 1 || tile_t + overlap - 1 > kMaxRows ||
+        (tile_t != 32 && tile_t != 16 && tile_t != 8) || hop % kKC != 0) {
         return (int)cudaErrorInvalidValue;
     }
-    size_t smem = forward_smem_bytes(hop, overlap, F);
+    size_t smem = forward_smem_bytes(tile_t, hop, overlap, F);
     Taps taps = make_taps(taps_host, P);
     dim3 grid((unsigned)(B * n_tiles));
     cudaStream_t s = (cudaStream_t)stream;
@@ -266,8 +294,8 @@ int att_melspec_forward(const void* x_rows, int x_int16, long long B, int n_tile
         err = allow_smem(melspec_forward_kernel<I16, BF>, smem);                           \
         if (err != cudaSuccess) return (int)err;                                           \
         melspec_forward_kernel<I16, BF><<<grid, kThreads, smem, s>>>(                      \
-            x_rows, n_tiles, n_rows_total, hop, overlap, F, T, bcos, bsin, twr, twi, taps, \
-            power2, contrast, mel_bank, mel_lo, mel_hi, M, aff, out);                      \
+            x_rows, n_tiles, tile_t, n_rows_total, hop, overlap, F, T, bcos, bsin, twr,    \
+            twi, taps, power2, contrast, mel_bank, mel_lo, mel_hi, M, aff, out);           \
     } while (0)
     if (x_int16) {
         if (out_bf16) ATT_LAUNCH_FWD(true, true); else ATT_LAUNCH_FWD(true, false);
@@ -280,17 +308,17 @@ int att_melspec_forward(const void* x_rows, int x_int16, long long B, int n_tile
 
 // partials: (B * n_tiles, 4, F) float32 scratch; stats: (4, F) float64 out
 // (rows: sum, sumsq, min, max per bin).  Returns a cudaError_t.
-int att_melspec_stats(const void* x_rows, int x_int16, long long B, int n_tiles,
+int att_melspec_stats(const void* x_rows, int x_int16, long long B, int n_tiles, int tile_t,
                       int n_rows_total, int hop, int overlap, int F, int T, const float* bcos,
                       const float* bsin, const float* twr, const float* twi,
                       const float* taps_host, int P, int contrast, float* partials,
                       double* stats, void* stream) {
     using namespace att;
-    if (P < 0 || P >= kMaxTaps || overlap < 1 || kRowGroup + overlap - 1 > kMaxRows ||
-        hop % kKC != 0) {
+    if (P < 0 || P >= kMaxTaps || overlap < 1 || tile_t + overlap - 1 > kMaxRows ||
+        (tile_t != 32 && tile_t != 16 && tile_t != 8) || hop % kKC != 0) {
         return (int)cudaErrorInvalidValue;
     }
-    size_t smem = forward_smem_bytes(hop, overlap, F);
+    size_t smem = forward_smem_bytes(tile_t, hop, overlap, F);
     Taps taps = make_taps(taps_host, P);
     dim3 grid((unsigned)(B * n_tiles));
     cudaStream_t s = (cudaStream_t)stream;
@@ -299,14 +327,14 @@ int att_melspec_stats(const void* x_rows, int x_int16, long long B, int n_tiles,
         err = allow_smem(melspec_stats_kernel<true>, smem);
         if (err != cudaSuccess) return (int)err;
         melspec_stats_kernel<true><<<grid, kThreads, smem, s>>>(
-            x_rows, n_tiles, n_rows_total, hop, overlap, F, T, bcos, bsin, twr, twi, taps,
-            contrast, partials);
+            x_rows, n_tiles, tile_t, n_rows_total, hop, overlap, F, T, bcos, bsin, twr, twi,
+            taps, contrast, partials);
     } else {
         err = allow_smem(melspec_stats_kernel<false>, smem);
         if (err != cudaSuccess) return (int)err;
         melspec_stats_kernel<false><<<grid, kThreads, smem, s>>>(
-            x_rows, n_tiles, n_rows_total, hop, overlap, F, T, bcos, bsin, twr, twi, taps,
-            contrast, partials);
+            x_rows, n_tiles, tile_t, n_rows_total, hop, overlap, F, T, bcos, bsin, twr, twi,
+            taps, contrast, partials);
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;

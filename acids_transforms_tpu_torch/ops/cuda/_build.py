@@ -97,10 +97,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.att_error_string.argtypes = [i]
     lib.att_error_string.restype = ctypes.c_char_p
-    lib.att_melspec_smem_bytes.argtypes = [i, i, i]
+    lib.att_melspec_smem_bytes.argtypes = [i, i, i, i]
     lib.att_melspec_smem_bytes.restype = ll
     lib.att_melspec_forward.argtypes = [
-        p, i, ll, i, i, i, i, i, i,      # x_rows, x_int16, B, n_tiles, n_rows_total, hop, overlap, F, T
+        p, i, ll, i, i,                  # x_rows, x_int16, B, n_tiles, tile_t
+        i, i, i, i, i,                   # n_rows_total, hop, overlap, F, T
         p, p, p, p,                      # bcos, bsin, twr, twi
         ctypes.POINTER(f), i, i, i,      # taps, P, power2, contrast
         p, p, p, i,                      # mel_bank, mel_lo, mel_hi, M
@@ -108,7 +109,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.att_melspec_forward.restype = i
     lib.att_melspec_stats.argtypes = [
-        p, i, ll, i, i, i, i, i, i,
+        p, i, ll, i, i,
+        i, i, i, i, i,
         p, p, p, p,
         ctypes.POINTER(f), i, i,         # taps, P, contrast
         p, p, p,                         # partials, stats, stream

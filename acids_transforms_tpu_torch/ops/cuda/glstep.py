@@ -52,7 +52,9 @@ from . import _build
 __all__ = [
     "make_gl_momentum_step",
     "gl_momentum_step_reference",
+    "gl_momentum_step_oracle",
     "gl_project_available",
+    "gl_max_chain",
     "launches",
     "reset_launches",
 ]
@@ -78,45 +80,42 @@ def _smem_bytes(tile_t: int, chain: int, overlap: int, hop: int) -> int:
     return 4 * (rows * hop + max(syn, ana))
 
 
-def _block_cost(tile_t: int, chain: int, overlap: int) -> float:
-    """Relative cost of one block: the kernel walks its chunk rows (synthesis)
-    and its frames (analysis) in groups of 32; a partly filled group still
-    stages all its operands, and its idle warps skip the multiply-adds."""
-    m = overlap - 1
-    cost = 0.0
-    for it in range(chain):
-        frames = tile_t + 2 * m * (chain - 1 - it)
-        for rows in (frames + m, frames):
-            full, rem = divmod(rows, 32)
-            cost += full + (0.5 + 0.5 * rem / 32 if rem else 0.0)
-    return cost
-
-
 def _pick_tile(T: int, chain: int, overlap: int, hop: int) -> Optional[int]:
-    """Frames per block: the tile that fits shared memory and makes the whole
-    spectrogram cheapest (halo recomputation and partly filled row groups
-    both count), or None when nothing fits."""
-    best = None
+    """Frames per block: the widest tile (at most 128) whose signal window
+    fits shared memory, evened out over the tiles it takes to cover ``T``
+    frames, or None when not even 8 frames fit.  Wide tiles keep the halo
+    that a block recomputes a small share of its work."""
+    widest = None
     for tile_t in range(8, 129):
         if _smem_bytes(tile_t, chain, overlap, hop) > MAX_SMEM:
             break
-        cost = -(-T // tile_t) * _block_cost(tile_t, chain, overlap)
-        if best is None or cost < best[0]:
-            best = (cost, tile_t)
-    return None if best is None else best[1]
+        widest = tile_t
+    if widest is None:
+        return None
+    return -(-T // -(-T // widest))
 
 
-def gl_project_available(n_fft: int, hop_length: int, taps, iters: int = 1) -> bool:
-    """Whether the kernel covers this shape.  The port's own limits: cosine-sum
+def gl_project_available(n_fft: int, hop_length: int, taps) -> bool:
+    """Whether the shape suits the kernel.  The port's own limits: cosine-sum
     taps with P <= 4, ``hop | n_fft`` with 2 <= overlap <= 8 (the halo a tile
-    holds), hop a multiple of 32 (the staged contraction chunk), and the
-    block's signal window within shared memory."""
+    holds) and hop a multiple of 32 (the staged contraction chunk).  A shape
+    inside this gate whose window exceeds shared memory even unchained (hop
+    above 2048) is not silently sent elsewhere: the step factory raises
+    ``NotImplementedError`` for it on a CUDA tensor."""
     if taps is None or len(taps) > 5 or n_fft % hop_length != 0 or n_fft % 2:
         return False
     overlap = n_fft // hop_length
-    if not 2 <= overlap <= MAX_OVERLAP or hop_length % 32 != 0:
-        return False
-    return _pick_tile(1 << 30, iters, overlap, hop_length) is not None
+    return 2 <= overlap <= MAX_OVERLAP and hop_length % 32 == 0
+
+
+def gl_max_chain(n_fft: int, hop_length: int, want: int) -> int:
+    """The longest chain ``<= want`` whose window (tile plus the halo of
+    ``chain * (overlap - 1)`` frames per side) fits shared memory, at least 1."""
+    overlap = n_fft // hop_length
+    chain = max(1, want)
+    while chain >= 2 and _pick_tile(1 << 30, chain, overlap, hop_length) is None:
+        chain -= 1
+    return chain
 
 
 def _env_rows(T: int, n_fft: int, hop_length: int, window: torch.Tensor) -> torch.Tensor:
@@ -182,6 +181,37 @@ def gl_momentum_step_reference(
     return are, aim, tre, tim
 
 
+def gl_momentum_step_oracle(mag, are, aim, tre, tim, env, n_fft, hop_length, taps, mom, iters=1):
+    """The same function in float64 by the textbook route, independent of the
+    chunk factorization: window the inverse FFT of each frame, overlap-add
+    the un-trimmed signal, divide by the envelope, re-frame in place, window,
+    FFT.  Against it the checks tell a wrong boundary rule from rounding: on
+    the first and last ``overlap - 1`` frames the float32 versions are as far
+    from it as the window's smallest value makes them (see the module note),
+    and the kernel may be no further than its plain version.  Same arguments
+    as :func:`gl_momentum_step_reference`; returns float64 tensors."""
+    f64 = torch.float64
+    mag, are, aim, tre, tim = (a.to(f64) for a in (mag, are, aim, tre, tim))
+    env = env.to(f64).reshape(-1)
+    ang = 2.0 * torch.pi * torch.arange(n_fft, dtype=f64, device=mag.device) / n_fft
+    w = sum((1.0 if p == 0 else 2.0) * c * torch.cos(p * ang) for p, c in enumerate(taps))
+    tprev = torch.complex(tre, tim)
+    for _ in range(iters):
+        spec = torch.complex(mag * are, mag * aim)
+        # the taps conv reads bin 0 as stored, so an imaginary part there (not
+        # a real signal's) reaches bins 1..P; irfft alone would drop it
+        leak = torch.zeros_like(spec)
+        for p in range(1, len(taps)):
+            leak[..., p] = 1j * taps[p] * spec[..., 0].imag
+        frames = torch.fft.irfft(spec, n=n_fft) * w + torch.fft.irfft(leak, n=n_fft)
+        signal = overlap_add(frames, hop_length) / env
+        rebuilt = torch.fft.rfft(signal.unfold(-1, n_fft, hop_length) * w)
+        u = rebuilt - mom * tprev
+        angles = u / torch.clamp_min(u.abs(), 1e-16)
+        are, aim, tprev = angles.real, angles.imag, rebuilt
+    return are, aim, tprev.real, tprev.imag
+
+
 def make_gl_momentum_step(
     mag: torch.Tensor,
     n_fft: int,
@@ -189,7 +219,6 @@ def make_gl_momentum_step(
     taps: Tuple[float, ...],
     window: torch.Tensor,
     momentum: float,
-    tile_t: Optional[int] = None,
     iters: int = 1,
 ) -> Tuple[Callable, Callable, Callable]:
     """Whole-iteration momentum-GL step factory.
@@ -229,17 +258,20 @@ def make_gl_momentum_step(
 
         return step_plain, to_rows, from_rows
 
-    if not gl_project_available(n_fft, hop_length, taps, iters):
+    if not gl_project_available(n_fft, hop_length, taps):
         raise ValueError(
-            "the CUDA Griffin-Lim kernel does not cover n_fft=%d hop=%d iters=%d "
-            "(need cosine-sum taps with P <= 4, hop | n_fft, 2 <= overlap <= 8, "
-            "hop %% 32 == 0 and the block's window within shared memory)"
-            % (n_fft, hop_length, iters)
+            "the CUDA Griffin-Lim kernel does not cover n_fft=%d hop=%d "
+            "(need cosine-sum taps with P <= 4, hop | n_fft, 2 <= overlap <= 8 "
+            "and hop %% 32 == 0)" % (n_fft, hop_length)
         )
+    tile_t = _pick_tile(T, iters, overlap, hop_length)
     if tile_t is None:
-        tile_t = _pick_tile(T, iters, overlap, hop_length)
-    elif _smem_bytes(tile_t, iters, overlap, hop_length) > MAX_SMEM:
-        raise ValueError("tile_t=%d does not fit shared memory" % tile_t)
+        raise NotImplementedError(
+            "the CUDA Griffin-Lim kernel holds a block's signal window in shared "
+            "memory, which n_fft=%d hop=%d iters=%d exceeds (ROADMAP Queue 2, "
+            "K3: hops above 2048; see gl_max_chain for a shorter chain); use "
+            "fused=False" % (n_fft, hop_length, iters)
+        )
     n_tiles = -(-T // tile_t)
     Ch, Sh = _tables(_chunk_dft_matrices, dev, n_fft, hop_length)
     twr, twi = _tables(_twiddles, dev, n_fft, hop_length)

@@ -41,7 +41,7 @@ __all__ = [
     "reset_launches",
 ]
 
-TILE_T = 32                       # frames per block (csrc/dft_common.cuh: kRowGroup)
+TILES = (32, 16, 8)               # frames per block the kernels can run, widest first
 MAX_SMEM = 232448                 # bytes of shared memory a block may use on sm_90
 _CONTRASTS = {"none": 0, None: 0, "log1p": 1}
 
@@ -54,26 +54,35 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _smem_bytes(hop: int, overlap: int, n_bins: int) -> int:
+def _smem_bytes(tile_t: int, hop: int, overlap: int, n_bins: int) -> int:
     """Shared memory of one block, as ``csrc/spectral.cu`` lays it out."""
     work = 2 * 32 * 128 + 2 * 40 * 128 + 2 * 32 * 128 + 2 * 128
-    return 4 * ((TILE_T + overlap - 1) * hop + TILE_T * n_bins + work)
+    return 4 * ((tile_t + overlap - 1) * hop + tile_t * n_bins + work)
+
+
+def _pick_tile(hop: int, overlap: int, n_bins: int) -> Optional[int]:
+    """Frames per block: the widest tile whose hop chunks, magnitudes and work
+    area fit shared memory (32 up to n_fft 1024, 16 at 2048, 8 at 4096), or
+    None when none does."""
+    for tile_t in TILES:
+        if _smem_bytes(tile_t, hop, overlap, n_bins) <= MAX_SMEM:
+            return tile_t
+    return None
 
 
 def fused_melspec_available(n_fft: int, hop_length: int, taps) -> bool:
-    """Whether the CUDA kernels cover this shape: cosine-sum taps (P <= 4),
-    ``hop | n_fft`` with 2 <= overlap <= 8, hop a multiple of 32, and one
-    block's tile (hop chunks, magnitudes, work area) within shared memory
-    (n_fft <= 1024 at overlap 4)."""
+    """Whether the chain's structure suits the CUDA kernels: cosine-sum taps
+    (P <= 4), ``hop | n_fft`` with 2 <= overlap <= 8, hop a multiple of 32.
+    A shape inside this gate whose narrowest tile still exceeds shared memory
+    (n_fft above 4096) is not silently sent elsewhere: the wrappers raise
+    ``NotImplementedError`` for it on a CUDA tensor."""
     if taps is None or len(taps) > 5 or n_fft % hop_length != 0 or n_fft % 2:
         return False
     overlap = n_fft // hop_length
-    if not 2 <= overlap <= 8 or hop_length % 32 != 0:
-        return False
-    return _smem_bytes(hop_length, overlap, n_fft // 2 + 1) <= MAX_SMEM
+    return 2 <= overlap <= 8 and hop_length % 32 == 0
 
 
-def _prepare_rows(x: torch.Tensor, n_fft: int, hop: int, center: bool, tile_t: int = TILE_T):
+def _prepare_rows(x: torch.Tensor, n_fft: int, hop: int, center: bool, tile_t: int = TILES[0]):
     """Centre-pad, pad to the tiled row count plus halo, reshape to hop rows.
 
     One concatenate builds the padded signal (reflect head, body, reflect
@@ -233,13 +242,22 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def _require_kernel_shape(n_fft, hop, taps):
+def _kernel_tile(n_fft, hop, taps) -> int:
+    """The frame tile for this shape, or raise: the kernels never give way."""
     if not fused_melspec_available(n_fft, hop, taps):
         raise ValueError(
             "the CUDA melspec kernels do not cover n_fft=%d hop=%d (need "
-            "cosine-sum taps with P <= 4, hop | n_fft, 2 <= overlap <= 8, "
-            "hop %% 32 == 0 and a tile within shared memory)" % (n_fft, hop)
+            "cosine-sum taps with P <= 4, hop | n_fft, 2 <= overlap <= 8 and "
+            "hop %% 32 == 0)" % (n_fft, hop)
         )
+    tile_t = _pick_tile(hop, n_fft // hop, n_fft // 2 + 1)
+    if tile_t is None:
+        raise NotImplementedError(
+            "the CUDA melspec kernels hold one block's tile in shared memory, "
+            "which n_fft=%d hop=%d exceeds (ROADMAP Queue 2, K1: shapes above "
+            "n_fft 4096); use backend='eager'" % (n_fft, hop)
+        )
+    return tile_t
 
 
 def fused_melspec(
@@ -279,7 +297,7 @@ def fused_melspec(
             taps, power, out_dtype,
         )
     _check_input(x, n_fft, hop_length, taps)
-    _require_kernel_shape(n_fft, hop_length, taps)
+    tile_t = _kernel_tile(n_fft, hop_length, taps)
     if contrast not in _CONTRASTS:
         _apply_contrast(x, contrast)  # raises with the reason
     if out_dtype not in (torch.float32, torch.bfloat16):
@@ -288,7 +306,7 @@ def fused_melspec(
         raise ValueError("power must be 1 or 2")
     dev = x.device
     F = n_fft // 2 + 1
-    rows, T, n_tiles = _prepare_rows(x, n_fft, hop_length, center)
+    rows, T, n_tiles = _prepare_rows(x, n_fft, hop_length, center, tile_t)
     B = rows.shape[0]
     Ch, Sh, twr, twi = _kernel_tables(dev, n_fft, hop_length)
     if mel_bank is not None:
@@ -309,7 +327,7 @@ def fused_melspec(
     lib = _build.load_library()
     with torch.cuda.device(dev):
         code = lib.att_melspec_forward(
-            rows.data_ptr(), int(rows.dtype == torch.int16), B, n_tiles,
+            rows.data_ptr(), int(rows.dtype == torch.int16), B, n_tiles, tile_t,
             rows.shape[1], hop_length, n_fft // hop_length, F, T,
             Ch.data_ptr(), Sh.data_ptr(), twr.data_ptr(), twi.data_ptr(),
             taps_c, P, int(power == 2.0), _CONTRASTS[contrast],
@@ -343,12 +361,12 @@ def fused_melspec_stats(
     if not x.is_cuda:
         return fused_melspec_stats_reference(x, n_fft, hop_length, contrast, center, taps)
     _check_input(x, n_fft, hop_length, taps)
-    _require_kernel_shape(n_fft, hop_length, taps)
+    tile_t = _kernel_tile(n_fft, hop_length, taps)
     if contrast not in _CONTRASTS:
         _apply_contrast(x, contrast)  # raises with the reason
     dev = x.device
     F = n_fft // 2 + 1
-    rows, T, n_tiles = _prepare_rows(x, n_fft, hop_length, center)
+    rows, T, n_tiles = _prepare_rows(x, n_fft, hop_length, center, tile_t)
     B = rows.shape[0]
     Ch, Sh, twr, twi = _kernel_tables(dev, n_fft, hop_length)
     partials = torch.empty((B * n_tiles, 4, F), dtype=torch.float32, device=dev)
@@ -357,7 +375,7 @@ def fused_melspec_stats(
     lib = _build.load_library()
     with torch.cuda.device(dev):
         code = lib.att_melspec_stats(
-            rows.data_ptr(), int(rows.dtype == torch.int16), B, n_tiles,
+            rows.data_ptr(), int(rows.dtype == torch.int16), B, n_tiles, tile_t,
             rows.shape[1], hop_length, n_fft // hop_length, F, T,
             Ch.data_ptr(), Sh.data_ptr(), twr.data_ptr(), twi.data_ptr(),
             taps_c, P, _CONTRASTS[contrast], partials.data_ptr(),

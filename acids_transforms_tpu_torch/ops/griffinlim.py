@@ -59,7 +59,7 @@ def griffin_lim(
     it runs the step's plain PyTorch version through the same chain /
     remainder logic.  ``fused=False`` forces the eager loop.
     """
-    from .cuda.glstep import gl_project_available, make_gl_momentum_step
+    from .cuda.glstep import gl_max_chain, gl_project_available, make_gl_momentum_step
 
     dev = magnitude.device
     mom = momentum / (1.0 + momentum)
@@ -81,7 +81,9 @@ def griffin_lim(
     chain_k = min(GL_CHAIN, n_iter)
     while chain_k >= 2 and chain_k * (overlap - 1) > 24:
         chain_k -= 1
-    eligible = gl_project_available(n_fft, hop_length, taps, max(chain_k, 1))
+    eligible = gl_project_available(n_fft, hop_length, taps)
+    if eligible:
+        chain_k = gl_max_chain(n_fft, hop_length, chain_k)  # the window must fit shared memory
     if fused is None:
         use_kernel = magnitude.is_cuda and eligible
     else:

@@ -11,8 +11,11 @@ by the launch counters that the path went through the kernels, times them,
 and prints
 
 * a line with one JSON object ``{"kernels": [...]}`` (per kernel: launches on
-  the main path, max error against the plain version, its time, the plain
-  version's, the least time the card could take, a library yardstick),
+  the main path, max error against the plain version, its time (``ms``, also
+  as ``kernel_ms``), the plain version's, the least time the card could take
+  for the function (``bound_ms``: bytes moved once, or the operations an FFT
+  formulation needs), a library yardstick, and apart from the bound the fp32
+  multiply-add ceiling of the product formulation these kernels use),
 * the card's name and power limit as ``nvidia-smi`` gives them,
 * and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -95,7 +98,7 @@ def make_audio(batch: int, length: int, gen: torch.Generator, channels: int = 2)
 
 
 def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain=4):
-    """Kernels C and D against the plain version and against each other."""
+    """Kernels C and D against the plain version, a float64 oracle and each other."""
     from acids_transforms_tpu_torch.ops.cuda import glstep
 
     dev = mag.device
@@ -114,9 +117,6 @@ def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain
 
     m = n_fft // hop - 1
     n_t = mag.shape[1]
-    w_abs = window.abs()
-    w_min = w_abs[w_abs > torch.finfo(torch.float32).eps].min().item()  # above the envelope's floor
-    edge_tol = max(tol, 1e-7 / w_min)
 
     def inner(a, k=1):
         return a[:, k * m: n_t - k * m]
@@ -124,51 +124,100 @@ def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain
     def edges(a, k=1):
         return torch.cat([a[:, : k * m], a[:, n_t - k * m:]], dim=1)
 
-    def compare(kernel_out, plain_out, prev, label):
+    def against_oracle(kernel_out, plain_out, st, iters):
+        """Projection error of the kernel and of the plain version against the
+        float64 FFT oracle, on interior and edge frames, over the oracle's
+        largest value.  The oracle runs 16 clips at a time (float64 frames of
+        the whole batch would not fit beside the rest)."""
+        worst = {("kernel", "interior"): 0.0, ("kernel", "edge"): 0.0,
+                 ("plain", "interior"): 0.0, ("plain", "edge"): 0.0}
+        squares = {"kernel": 0.0, "plain": 0.0}   # of the edge frames' differences
+        scale = 0.0
+        for b0 in range(0, mag.shape[0], 16):
+            sl = slice(b0, b0 + 16)
+            orc = glstep.gl_momentum_step_oracle(
+                mag[sl], *[a[sl] for a in st], env, n_fft, hop, taps, mom, iters)
+            scale = max(scale, orc[2].abs().max().item(), orc[3].abs().max().item())
+            for who, out in (("kernel", kernel_out), ("plain", plain_out)):
+                for part, pick in (("interior", inner), ("edge", edges)):
+                    d = [pick(out[i][sl].double(), iters) - pick(orc[i], iters) for i in (2, 3)]
+                    worst[(who, part)] = max(worst[(who, part)], *(x.abs().max().item() for x in d))
+                    if part == "edge":
+                        squares[who] += sum((x * x).sum().item() for x in d)
+        err = {k: v / scale for k, v in worst.items()}
+        err["edge rms ratio"] = math.sqrt(squares["kernel"] / max(squares["plain"], 1e-300))
+        return err
+
+    def compare(kernel_out, plain_out, st, label, iters=1, tol=tol):
         # Interior frames: fp32 sums in another order than cuBLAS, 1e-4 leaves
-        # two decades.  The first and last overlap - 1 frames hold the
-        # signal's first and last samples, where this formulation cancels: the
-        # window is applied in the spectral domain, so a sample under window
-        # value w is a sum that cancels to w times its terms, divided by the
-        # envelope w^2.  Rounding of 1e-7 is amplified by 1 / w there, in
-        # both versions (w = 9.4e-6 at sample 1 of a 1024 hann, 0.08 for
-        # hamming), hence 1e-7 / min(w) on those frames.
+        # two decades.  The first and last iters * (overlap - 1) frames hold
+        # the signal's first and last samples, where this formulation cancels
+        # (the window is applied in the spectral domain, so a sample under
+        # window value w is a sum that cancels to w times its terms, divided
+        # by the envelope w^2) and rounding is amplified by 1 / w.  How far
+        # that goes is measured, not assumed: the plain version's own error
+        # against the float64 oracle on those frames.  The kernel must be
+        # within 1e-4 of the oracle there (hamming, w >= 0.08, holds the edge
+        # frames to that outright), or, where the plain version is further
+        # off (hann and blackman reach w ~ 1e-5), no worse than it by more
+        # than chance: the root mean square over the edge frames within 4
+        # times the plain version's, the largest value within 10 times (one
+        # sample per clip end, the one under the smallest window value,
+        # carries the maximum, so with a few clips the two maxima are a
+        # handful of independent draws each).
+        err = against_oracle(kernel_out, plain_out, st, iters)
+        edge_tol = max(tol, 10.0 * err[("plain", "edge")])
+        log(f"  {name} {label} vs float64 oracle: interior kernel {err[('kernel', 'interior')]:.3e} "
+            f"plain {err[('plain', 'interior')]:.3e} (tol {tol:g}); edge kernel "
+            f"{err[('kernel', 'edge')]:.3e} plain {err[('plain', 'edge')]:.3e} (tol {edge_tol:.3g}), "
+            f"rms kernel / plain {err['edge rms ratio']:.2f} (tol 4)")
+        require(err[("kernel", "interior")] <= tol, f"{name} {label}: interior frames off the oracle")
+        # (a chain's edge frames carry several iterations of that amplified
+        # rounding in both versions: they are held through D == k x C instead)
+        require(iters > 1 or err[("kernel", "edge")] <= tol
+                or (err[("kernel", "edge")] <= edge_tol and err["edge rms ratio"] <= 4.0),
+                f"{name} {label}: edge frames off the oracle")
+        require(all(torch.isfinite(o).all().item() for o in kernel_out), f"{name} {label}: non-finite")
+        # kernel against plain, whole batch
         scale_r = max(plain_out[2].abs().max().item(), plain_out[3].abs().max().item())
+        abs_r = max(abs_err(inner(kernel_out[i], iters), inner(plain_out[i], iters)) for i in (2, 3))
+        log(f"  {name} {label} vs plain, interior frames: projection rel {abs_r / scale_r:.3e} (tol {tol:g})")
+        require(abs_r / scale_r <= tol, f"{name} {label} disagrees with plain on interior frames")
+        return abs_r
+
+    def compare_angles(kernel_out, plain_out, prev, label):
+        # The new angles are u / |u| with u = R - mom * tprev: an error d in R
+        # turns the angle by d / |u|, without bound where u vanishes.  So (1)
+        # weighted by |u| / max|u| the difference must stay within what R is
+        # held to, on every frame; (2) unweighted, on interior frames where
+        # |u| >= 1e-2 max|u| (d / |u| <= 100 d), within 1e-4 as well.
         u_re = plain_out[2] - mom * prev[2]
         u_im = plain_out[3] - mom * prev[3]
         w = torch.sqrt(u_re * u_re + u_im * u_im)
         w = w / w.max()
-        out = {}
-        for part, pick, part_tol in (("interior", inner, tol), ("edge", edges, edge_tol)):
-            err_r = max(abs_err(pick(kernel_out[i]), pick(plain_out[i])) for i in (2, 3)) / scale_r
-            # unit phasors weighted by |u| / max|u| of the vector they were
-            # normalised from: the direction of a vanishing u amplifies the
-            # projection's rounding by 1 / |u| and says nothing about the kernel
-            err_a = max(
-                ((pick(kernel_out[i]) - pick(plain_out[i])).abs() * pick(w)).max().item()
-                for i in (0, 1)
-            )
-            log(f"  {name} {label}, {part} frames: projection rel {err_r:.3e}, "
-                f"angles weighted {err_a:.3e} (tol {part_tol:g})")
-            require(err_r <= part_tol and err_a <= part_tol,
-                    f"{name} {label} disagrees with plain on {part} frames")
-            out[part] = err_r * scale_r
-        mean_a = (inner(kernel_out[0]) - inner(plain_out[0])).abs().mean().item()
-        log(f"  {name} {label}, interior frames: angles mean abs difference {mean_a:.3e} (tol {tol:g})")
-        require(all(torch.isfinite(o).all().item() for o in kernel_out), f"{name} {label}: non-finite")
-        require(mean_a <= tol, f"{name} {label}: angles disagree with plain")
-        return out["interior"]
+        big = inner(w) >= 1e-2
+        for i in (0, 1):
+            d = (kernel_out[i] - plain_out[i]).abs()
+            e_w = (inner(d) * inner(w)).max().item()
+            e_u = (inner(d) * big).max().item()
+            e_edge = (edges(d) * edges(w)).max().item()
+            log(f"  {name} {label} angles[{i}]: interior weighted {e_w:.3e}, unweighted where "
+                f"|u| >= 1e-2 max ({100 * big.float().mean().item():.1f}% of bins) {e_u:.3e} "
+                f"(tol {tol:g}); edge weighted {e_edge:.3e}")
+            require(e_w <= tol and e_u <= tol, f"{name} {label}: angles disagree with plain")
 
     # C: one invocation from a random state, and one from the state
     # chain - 1 iterations later (so every iteration of a chain is covered
     # one by one)
     k1 = step1(*state)
-    err_c = compare(k1, plain(state, 1), state, "C (1 iteration) vs plain")
+    p1 = plain(state, 1)
+    err_c = compare(k1, p1, state, "C (1 iteration)")
+    compare_angles(k1, p1, state, "C (1 iteration)")
     st = k1
     for _ in range(chain - 2):
         st = step1(*st)
     k4_single = step1(*st)
-    err_c = max(err_c, compare(k4_single, plain(st, 1), st, f"C (iteration {chain}) vs plain"))
+    err_c = max(err_c, compare(k4_single, plain(st, 1), st, f"C (iteration {chain})"))
     # D: one invocation of `chain` chained iterations == `chain` invocations
     # of C.  Every output element runs the same sequence of fp32 operations
     # in both, so the tolerance 1e-5 only allows for nothing but that.
@@ -177,20 +226,12 @@ def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain
     err_chain = max(rel_err(a, b) for a, b in zip(k4, k4_single))
     log(f"  {name} D (chain of {chain}) vs {chain} x C: {err_chain:.3e} (tol 1e-05)")
     require(err_chain <= 1e-5, f"{name}: chain of {chain} differs from {chain} single steps")
-    # D against the plain version directly: chained iterations of a chaotic
-    # map amplify the 1e-7 rounding differences (tests/test_gl_parity.py
-    # measures 1e-7 -> 1.3e-4 in five iterations), hence 1e-3 on the
-    # projection here; the per-iteration agreement above is the sharp check.
-    # Frames within chain * (overlap - 1) of the ends inherit the edge
-    # samples' amplified rounding (see compare) and are left to the checks
-    # above.
-    p4 = plain(state, chain)
-    scale_d = max(p4[2].abs().max().item(), p4[3].abs().max().item())
-    abs_d = max(abs_err(inner(k4[i], chain), inner(p4[i], chain)) for i in (2, 3))
-    err_d = abs_d / scale_d
-    log(f"  {name} D (chain of {chain}) vs plain {chain} iterations, interior frames: "
-        f"projection rel {err_d:.3e} (tol 1e-03)")
-    require(err_d <= 1e-3, f"{name}: chain of {chain} disagrees with plain")
+    # D against the plain version and the oracle directly: chained iterations
+    # of a chaotic map amplify the 1e-7 rounding differences
+    # (tests/test_gl_parity.py measures 1e-7 -> 1.3e-4 in five iterations),
+    # hence 1e-3 on the projection here; the per-iteration agreement above is
+    # the sharp check.
+    abs_d = compare(k4, plain(state, chain), state, f"D (chain of {chain})", iters=chain, tol=1e-3)
     results["C"] = max(results.get("C", 0.0), err_c)
     results["D"] = max(results.get("D", 0.0), abs_d)
     return state, step1, step4, env
@@ -228,11 +269,12 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             log("    " + line.strip())
-    require(
-        lib.att_melspec_smem_bytes(HOP, N_FFT // HOP, N_FFT // 2 + 1)
-        == spectral._smem_bytes(HOP, N_FFT // HOP, N_FFT // 2 + 1),
-        "melspec shared-memory size: wrapper and source disagree",
-    )
+    for tile_t in spectral.TILES:
+        require(
+            lib.att_melspec_smem_bytes(tile_t, HOP, N_FFT // HOP, N_FFT // 2 + 1)
+            == spectral._smem_bytes(tile_t, HOP, N_FFT // HOP, N_FFT // 2 + 1),
+            "melspec shared-memory size: wrapper and source disagree",
+        )
     for tile_t, chain in ((64, 4), (64, 1), (32, 3)):
         require(
             lib.att_gl_smem_bytes(tile_t, chain, N_FFT // HOP, HOP)
@@ -310,25 +352,38 @@ def main() -> int:
     mag_rag = att.ops.stft(rag, 512, 128, w_r).abs()
     check_gl("ragged 512/128 blackman", mag_rag, 512, 128, taps_for_window(w_r), w_r, mom,
              args.seed + 2, 1e-4, errs)
-    # the other shapes the dispatch can send to the kernels: overlap 8 (the
-    # widest halo, chains of 3), overlap 2, and a hop wider than one pass of
-    # the synthesis product (512 > 256 sample columns)
+    # the other shapes the dispatch can send to the kernels: hamming at the
+    # main shape's framing (no small window value, so the edge frames are
+    # held to 1e-4 outright), overlap 8 (the widest halo, chains of 3),
+    # overlap 2, a hop wider than one pass of the synthesis product (512 > 256
+    # sample columns; frame tile of 16 in A and B), and n_fft 4096 (frame tile
+    # of 8, chains of 3)
     small = mono[:3, :30000].contiguous()
-    for n_fft, hop, wname, chain in ((1024, 128, "hamming", 3), (512, 256, "hann", 4),
-                                     (2048, 512, "hann", 4)):
+    for n_fft, hop, wname in ((1024, 256, "hamming"), (1024, 128, "hamming"), (512, 256, "hann"),
+                              (2048, 512, "hann"), (4096, 1024, "hann")):
         label = f"{n_fft}/{hop} {wname}"
         w_s = get_window(wname, n_fft, device=dev)
         taps_s = taps_for_window(w_s)
-        if spectral.fused_melspec_available(n_fft, hop, taps_s):
-            bank_s = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=n_fft).mel_bank
-            check_forward(label, small, n_fft, hop, wname, bank_s, 0.05, 1.3)
-            check_stats(label, small, n_fft, hop, wname)
-        else:
-            log(f"  A, B {label}: outside fused_melspec_available (tile beyond shared memory), "
-                "the dispatch takes the eager formulation")
-        require(glstep.gl_project_available(n_fft, hop, taps_s, chain), f"GL kernel must cover {label}")
+        require(spectral.fused_melspec_available(n_fft, hop, taps_s)
+                and glstep.gl_project_available(n_fft, hop, taps_s), f"kernels must cover {label}")
+        bank_s = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=n_fft).mel_bank
+        check_forward(label, small, n_fft, hop, wname, bank_s, 0.05, 1.3)
+        check_stats(label, small, n_fft, hop, wname)
+        chain = glstep.gl_max_chain(n_fft, hop, 3 if n_fft // hop == 8 else 4)
+        log(f"  {label}: frame tile {spectral._pick_tile(hop, n_fft // hop, n_fft // 2 + 1)} in A and B, "
+            f"chain of {chain} in D")
+        require(chain >= 2, f"no chain fits shared memory at {label}")
         check_gl(label, att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop, taps_s, w_s, mom,
                  args.seed + n_fft + hop, 1e-4, errs, chain=chain)
+    # a shape whose narrowest tile exceeds shared memory is refused, not
+    # quietly computed some other way
+    w_big = get_window("hann", 8192, device=dev)
+    try:
+        spectral.fused_melspec(small, 8192, 2048, taps=taps_for_window(w_big))
+    except NotImplementedError as exc:
+        log(f"  A 8192/2048 on the card raises NotImplementedError: {str(exc)[:60]}...")
+    else:
+        raise SystemExit("FAILED: fused_melspec at 8192/2048 neither ran a kernel nor raised")
 
     # -------------------------------------------------------- 4. main path
     log(f"[4] main path: Mono + STFT({N_FFT}, {HOP}, hann) + Magnitude(unipolar, log1p, mel) "
@@ -412,9 +467,15 @@ def main() -> int:
     window = stft_f.window
     kw = dict(mel_bank=bank, offset=off, scale=scl, contrast="log1p", taps=taps_main)
     nnz = int((bank != 0).sum().item())
+    # Operations the function needs, whatever the algorithm: a real FFT of
+    # n_fft points is about 2.5 n_fft log2 n_fft operations, then a few per
+    # bin for the window, the magnitude, the contrast and the affine.
+    fft_flops = 2.5 * N_FFT * math.log2(N_FFT) * B * Tn
+    # Operations of the formulation these kernels use (chunk DFT as a
+    # product, twiddle combine, taps conv), for the fp32 FMA ceiling of this
+    # design: reported beside the bound, never as the bound.
     chunk_flops = 4.0 * B * (Tn + ov - 1) * HOP * F        # cos and sin products of every chunk
     combine_flops = 8.0 * B * Tn * F * ov + 4.0 * B * Tn * F * (2 * len(taps_main) - 1)
-    tables = 4.0 * (2 * HOP * F + 2 * ov * F)
 
     def lib_spec(x):
         return torch.stft(x, N_FFT, HOP, window=window, center=True, pad_mode="reflect",
@@ -442,7 +503,16 @@ def main() -> int:
         t_b, t_o = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
         return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
-    gl_bytes = 9.0 * 4 * B * Tn * F + 4.0 * (Tn + ov - 1) * HOP + tables + 8.0 * HOP * F
+    def ceiling_of(flops):
+        return 1e3 * flops / PEAK_FP32_FLOPS
+
+    # window (1 per sample), |X| (4 per bin), mel (2 per nonzero), log1p and affine (3 per bin)
+    fwd_flops = fft_flops + B * Tn * (N_FFT + 7.0 * F + 2.0 * nnz)
+    stats_flops = fft_flops + B * Tn * (N_FFT + 5.0 * F + 4.0 * F)
+    gl_bytes = 9.0 * 4 * B * Tn * F + 4.0 * (Tn + ov - 1) * HOP
+    # per iteration: inverse and forward FFT, both windowings, the envelope
+    # division, mag * angles (2 per bin), u and its normalisation (10 per bin)
+    gl_need = 2 * fft_flops + B * Tn * (3.0 * N_FFT + 12.0 * F)
     gl_flops = 2 * chunk_flops + 2 * combine_flops + 10.0 * B * Tn * F
     specs = [
         dict(key="A", name="fused_melspec", source="acids_transforms_tpu_torch/csrc/spectral.cu",
@@ -451,15 +521,16 @@ def main() -> int:
              run=lambda: spectral.fused_melspec(mono, N_FFT, HOP, **kw),
              plain=lambda: spectral.fused_melspec_reference(mono, N_FFT, HOP, **kw),
              library=lib_forward,
-             bound=bound_of(4.0 * B * L + 4.0 * B * Tn * F + tables + 4.0 * F * F,
-                            chunk_flops + combine_flops + 3.0 * B * Tn * F + 2.0 * B * Tn * nnz)),
+             bound=bound_of(4.0 * B * L + 4.0 * B * Tn * F + 4.0 * F * F, fwd_flops),
+             ceiling=ceiling_of(chunk_flops + combine_flops + 3.0 * B * Tn * F + 2.0 * B * Tn * nnz)),
         dict(key="B", name="fused_melspec_stats", source="acids_transforms_tpu_torch/csrc/spectral.cu",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:903",
              launches=counts["fused_melspec_stats"],
              run=lambda: spectral.fused_melspec_stats(mono, N_FFT, HOP, "log1p", taps=taps_main),
              plain=lambda: spectral.fused_melspec_stats_reference(mono, N_FFT, HOP, "log1p", taps=taps_main),
              library=lib_stats,
-             bound=bound_of(4.0 * B * L + tables, chunk_flops + combine_flops + 8.0 * B * Tn * F)),
+             bound=bound_of(4.0 * B * L, stats_flops),
+             ceiling=ceiling_of(chunk_flops + combine_flops + 8.0 * B * Tn * F)),
         dict(key="C", name="gl_momentum_step", source="acids_transforms_tpu_torch/csrc/glstep.cu",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:294",
              launches=counts["gl_momentum_step"],
@@ -467,7 +538,8 @@ def main() -> int:
              plain=lambda: glstep.gl_momentum_step_reference(
                  gl_mag, *gl_state, gl_env, N_FFT, HOP, taps_main, mom, 1),
              library=lambda: lib_gl(1),
-             bound=bound_of(gl_bytes, gl_flops)),
+             bound=bound_of(gl_bytes, gl_need),
+             ceiling=ceiling_of(gl_flops)),
         dict(key="D", name="gl_momentum_chain", source="acids_transforms_tpu_torch/csrc/glstep.cu",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:326",
              launches=counts["gl_momentum_chain"],
@@ -475,7 +547,8 @@ def main() -> int:
              plain=lambda: glstep.gl_momentum_step_reference(
                  gl_mag, *gl_state, gl_env, N_FFT, HOP, taps_main, mom, 4),
              library=lambda: lib_gl(4),
-             bound=bound_of(gl_bytes, 4 * gl_flops)),
+             bound=bound_of(gl_bytes, 4 * gl_need),
+             ceiling=ceiling_of(4 * gl_flops)),
     ]
     kernels = []
     for s in specs:
@@ -487,12 +560,14 @@ def main() -> int:
         l_ms = time_ms(s["library"], max(1, args.repeats // 2))
         b_ms, b_by = s["bound"]
         row = dict(name=s["name"], route="cuda", source=s["source"], replaces=s["replaces"],
-                   launches=s["launches"], max_abs_err=errs[s["key"]], ms=k_ms,
-                   plain_ms=0.5 * (p1 + p2), bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+                   launches=s["launches"], max_abs_err=errs[s["key"]], ms=k_ms, kernel_ms=k_ms,
+                   plain_ms=0.5 * (p1 + p2), bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+                   design_fma_ceiling_ms=s["ceiling"])
         kernels.append(row)
         log(f"  {s['key']} {s['name']}: {k_ms:.3f} ms, plain {row['plain_ms']:.3f} ms, "
             f"library {l_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by} "
-            f"({100 * b_ms / k_ms:.1f}% of it reached)")
+            f"({100 * b_ms / k_ms:.1f}% of it reached); fp32 FMA ceiling of this design "
+            f"{s['ceiling']:.3f} ms ({100 * s['ceiling'] / k_ms:.1f}%)")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -170,8 +170,21 @@ def test_dispatch_gates_and_explicit_kernel_request():
         y = patt.fuse_forward(fitted_bad)(x)             # and to the eager formulation
         assert torch.isfinite(y).all()
     assert not pk.fused_melspec_available(N_FFT, HOP, None)
-    assert not pk.fused_melspec_available(4096, 1024, (0.5, -0.25))   # tile beyond shared memory
     assert pk.fused_melspec_available(1024, 256, (0.5, -0.25))
+    assert not pk.fused_melspec_available(512, 32, (0.5, -0.25))     # overlap 16
+    # shared memory is no silent gate: the frame tile narrows with n_fft, and
+    # a shape whose narrowest tile does not fit is for the wrapper to refuse
+    assert pk.fused_melspec_available(8192, 2048, (0.5, -0.25))
+    picks = {(1024, 256): 32, (512, 64): 32, (2048, 512): 16, (2048, 256): 16,
+             (4096, 1024): 8, (4096, 512): 8, (8192, 2048): None}
+    for (n_fft, hop), tile in picks.items():
+        assert pk._pick_tile(hop, n_fft // hop, n_fft // 2 + 1) == tile
+        if tile is not None:
+            assert pk._smem_bytes(tile, hop, n_fft // hop, n_fft // 2 + 1) <= pk.MAX_SMEM
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pk._kernel_tile(8192, 2048, (0.5, -0.25))
+    with pytest.raises(ValueError, match="overlap"):
+        pk._kernel_tile(512, 32, (0.5, -0.25))
     with pytest.raises(ValueError):
         patt.fuse_forward(pc, backend="pallas")
     with pytest.raises(ValueError):
