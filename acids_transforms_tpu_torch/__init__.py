@@ -1,7 +1,8 @@
 """acids_transforms_tpu_torch -- the PyTorch/CUDA port of ``acids_transforms_tpu``.
 
 Composable, invertible audio transforms as ``torch.nn.Module``s, with the hot
-paths (fused log-mel forward, its fit statistics, the Griffin-Lim step) as
+paths (fused log-mel / DGT-magnitude forward and its fit statistics for any
+window, the Griffin-Lim step, the PGHI recurrence and synthesis) as
 hand-written CUDA kernels for Hopper under ``csrc/``.  The port is built slice
 by slice; what is not ported yet raises ``NotImplementedError`` naming its
 ROADMAP item.

@@ -9,7 +9,7 @@ JAX transforms' ``_tree_flatten`` returns, converted to numpy) and hands over
 plain arrays.
 
 Keys: ``"<child index>.<leaf>"`` with leaves ``window``, ``inv_window``
-(STFT); ``mel_bank``, ``inverse_mel_bank``, ``norm.offset``, ``norm.scale``
+(STFT and DGT: the gaussian window and its least-squares inverse window); ``mel_bank``, ``inverse_mel_bank``, ``norm.offset``, ``norm.scale``
 (Magnitude); ``offset``, ``scale`` (Normalize); and the flag
 ``"<child index>.needs_scaling"`` (and ``"<i>.norm.needs_scaling"``), 0 or 1.
 """

@@ -9,6 +9,12 @@
 // memory; the pieces are here so that the forward, the fit statistics and
 // the Griffin-Lim step share one implementation.
 //
+// A window that is no cosine sum (the DGT's gaussian) has no such
+// factorization.  Its frame t is the contiguous slice row[t * hop, t * hop +
+// n_fft) of the same rows, multiplied with a basis of n_fft x F that has the
+// window folded in: the same product with contraction length n_fft instead
+// of hop and no combine (analysis_tile with klen = n_fft).
+//
 // Arithmetic: plain fp32 FMA with fp32 accumulation everywhere (no tensor
 // cores, no TF32, no bf16 split).  A block is 256 threads = 8 warps; a warp
 // owns a band of rows, its lanes own columns.
@@ -91,17 +97,24 @@ __host__ __device__ __forceinline__ int n_col_tiles(int F, int P) {
 // extension, kk0 = ct * (kColTile - 2P) - P, so that the taps conv of the
 // caller finds its neighbours inside the tile.  n_rows = n_frames + overlap
 // - 1 <= kMaxRows.  Ends with a __syncthreads(): X is readable on return.
+//
+// klen > 0 selects the full-K front end: row r is the frame As[r * hop, r *
+// hop + klen) (n_rows = n_frames of them, overlapping), bcos / bsin are the
+// window-folded (klen, F) basis, and X is the product itself (twr / twi are
+// not read; P = 0).
 static __device__ void analysis_tile(const float* As, int n_rows, int n_frames, int hop,
                               int overlap, int F, int ct, int P,
                               const float* __restrict__ bcos,
                               const float* __restrict__ bsin,
                               const float* __restrict__ twr,
-                              const float* __restrict__ twi, AnaWork w) {
+                              const float* __restrict__ twi, AnaWork w, int klen = 0) {
     const int tid = threadIdx.x;
     const int tx = tid & 31;
     const int ty = tid >> 5;
     const int N = F - 1;
     const int kk0 = ct * (kColTile - 2 * P) - P;
+    const bool fullk = klen > 0;
+    const int K = fullk ? klen : hop;  // contraction length
 
     __syncthreads();  // previous users of the work area are done
     if (tid < kColTile) {
@@ -157,7 +170,7 @@ static __device__ void analysis_tile(const float* As, int n_rows, int n_frames, 
         }
     };
     fetch(0);
-    for (int n0 = 0; n0 < hop; n0 += kKC) {
+    for (int n0 = 0; n0 < K; n0 += kKC) {
         __syncthreads();  // previous chunk consumed
 #pragma unroll
         for (int i = 0; i < kRowsPer; ++i) {
@@ -166,7 +179,7 @@ static __device__ void analysis_tile(const float* As, int n_rows, int n_frames, 
             Bsn[kk * kColTile + stage_c] = stage_bin >= 0 ? vs[i] : 0.0f;
         }
         __syncthreads();
-        if (n0 + kKC < hop) fetch(n0 + kKC);
+        if (n0 + kKC < K) fetch(n0 + kKC);
         if (!warp_active) continue;
 #pragma unroll 2
         for (int kk = 0; kk < kKC; kk += 4) {
@@ -212,7 +225,10 @@ static __device__ void analysis_tile(const float* As, int n_rows, int n_frames, 
         int c = idx - t * kColTile;
         int bin = w.colbin[c];
         float xr = 0.0f, xi = 0.0f;
-        if (bin >= 0) {
+        if (bin >= 0 && fullk) {
+            xr = w.Cre[idx];
+            xi = w.Cim[idx] * w.colsgn[c];
+        } else if (bin >= 0) {
             for (int j = 0; j < overlap; ++j) {
                 float wr = __ldg(twr + (size_t)j * F + bin);
                 float wi = __ldg(twi + (size_t)j * F + bin);

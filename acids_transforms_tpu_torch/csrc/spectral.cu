@@ -1,10 +1,20 @@
 // Fused mel-spectrogram forward and fit statistics for Hopper (sm_90a).
 //
 // Replaces, from the JAX package's ops/pallas/spectral.py:
-//   melspec_forward_kernel  <- _forward_kernel_factored  (via _fused_call / fused_melspec)
-//   melspec_stats_kernel    <- _stats_kernel_factored    (via _stats_call / fused_melspec_stats)
+//   melspec_forward_kernel<.., false>  <- _forward_kernel_factored  (via _fused_call / fused_melspec)
+//   melspec_stats_kernel<.., false>    <- _stats_kernel_factored    (via _stats_call / fused_melspec_stats)
+//   melspec_forward_kernel<.., true>   <- _forward_kernel  (full-K: any window, taps=None)
+//   melspec_stats_kernel<.., true>     <- _stats_kernel    (full-K)
 //   stats_reduce_kernel     <- the accumulation the TPU kernel carried across its
 //                              sequential grid (_stats_update)
+//
+// The full-K kernels differ from the factored ones only before the magnitude
+// (one epilogue, two front ends): frame t is the slice row[t hop, t hop +
+// n_fft) of the same padded rows against a window-folded basis of n_fft x F
+// (cos | -sin), all F bins in one fp32 product; the contraction is n_fft
+// long instead of hop, so they do `overlap` times the multiply-adds of the
+// factored kernels.  The basis (4.2 MB at n_fft 1024) stays in L2 and is
+// streamed through shared memory in chunks of 32 rows like the chunk basis.
 //
 // What bounds them on this card: the function itself is bound by bytes (an
 // FFT needs about 2.5 n_fft log2 n_fft operations per frame, far below the
@@ -44,7 +54,7 @@
 namespace att {
 
 // Magnitudes (or powers) of one block's tile_t frames into mag_s[t * F + k].
-template <bool kInt16>
+template <bool kInt16, bool kFullK>
 __device__ void block_magnitudes(const void* __restrict__ x_rows, long long b, int tile,
                                  int tile_t, int n_rows_total, int hop, int overlap, int F,
                                  const float* bcos, const float* bsin, const float* twr,
@@ -71,7 +81,12 @@ __device__ void block_magnitudes(const void* __restrict__ x_rows, long long b, i
     const int useful = kColTile - 2 * P;
     const int n_ct = n_col_tiles(F, P);
     for (int ct = 0; ct < n_ct; ++ct) {
-        analysis_tile(xs, n_rows, tile_t, hop, overlap, F, ct, P, bcos, bsin, twr, twi, w);
+        if (kFullK) {
+            analysis_tile(xs, tile_t, tile_t, hop, overlap, F, ct, P, bcos, bsin, twr, twi, w,
+                          overlap * hop);
+        } else {
+            analysis_tile(xs, n_rows, tile_t, hop, overlap, F, ct, P, bcos, bsin, twr, twi, w);
+        }
         const int k0 = ct * useful;
         for (int idx = tid; idx < tile_t * useful; idx += kThreads) {
             int t = idx / useful;
@@ -133,7 +148,7 @@ __device__ void emit_tile(const float* mag_s, long long b, int t_base, int F, in
     }
 }
 
-template <bool kInt16, bool kBf16>
+template <bool kInt16, bool kBf16, bool kFullK>
 __global__ void __launch_bounds__(kThreads)
 melspec_forward_kernel(const void* __restrict__ x_rows, int n_tiles, int tile_t,
                        int n_rows_total, int hop, int overlap, int F, int T,
@@ -151,8 +166,8 @@ melspec_forward_kernel(const void* __restrict__ x_rows, int n_tiles, int tile_t,
     const long long blk = blockIdx.x;
     const long long b = blk / n_tiles;
     const int tile = (int)(blk - b * n_tiles);
-    block_magnitudes<kInt16>(x_rows, b, tile, tile_t, n_rows_total, hop, overlap, F, bcos,
-                             bsin, twr, twi, taps, power2 != 0, xs, mag_s, w);
+    block_magnitudes<kInt16, kFullK>(x_rows, b, tile, tile_t, n_rows_total, hop, overlap, F,
+                                     bcos, bsin, twr, twi, taps, power2 != 0, xs, mag_s, w);
 
     const float offset = aff[0];
     const float scale = aff[1];
@@ -172,7 +187,7 @@ melspec_forward_kernel(const void* __restrict__ x_rows, int n_tiles, int tile_t,
     }
 }
 
-template <bool kInt16>
+template <bool kInt16, bool kFullK>
 __global__ void __launch_bounds__(kThreads)
 melspec_stats_kernel(const void* __restrict__ x_rows, int n_tiles, int tile_t,
                      int n_rows_total, int hop, int overlap, int F, int T, const float* bcos, const float* bsin,
@@ -187,8 +202,8 @@ melspec_stats_kernel(const void* __restrict__ x_rows, int n_tiles, int tile_t,
     const long long blk = blockIdx.x;
     const long long b = blk / n_tiles;
     const int tile = (int)(blk - b * n_tiles);
-    block_magnitudes<kInt16>(x_rows, b, tile, tile_t, n_rows_total, hop, overlap, F, bcos,
-                             bsin, twr, twi, taps, false, xs, mag_s, w);
+    block_magnitudes<kInt16, kFullK>(x_rows, b, tile, tile_t, n_rows_total, hop, overlap, F,
+                                     bcos, bsin, twr, twi, taps, false, xs, mag_s, w);
 
     // frames past T are tile padding: they stay out of the statistics
     const int t_valid = min(tile_t, T - tile * tile_t);
@@ -253,6 +268,14 @@ static Taps make_taps(const float* c, int P) {
     return t;
 }
 
+// The full-K front end applies the window in its basis: the taps conv is the identity.
+static Taps unit_taps() {
+    Taps t;
+    for (int i = 0; i < kMaxTaps; ++i) t.c[i] = i == 0 ? 1.0f : 0.0f;
+    t.P = 0;
+    return t;
+}
+
 template <typename K>
 static cudaError_t allow_smem(K kernel, size_t bytes) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -271,7 +294,10 @@ long long att_melspec_smem_bytes(int tile_t, int hop, int overlap, int F) {
 const char* att_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // x_rows: (B, n_rows_total, hop) float32 or int16, n_rows_total >= n_tiles * tile_t +
-// overlap - 1, tile_t one of 32, 16, 8.  out: (B, T, M or F) float32 or bfloat16.  Returns a cudaError_t.
+// overlap - 1, tile_t one of 32, 16, 8.  out: (B, T, M or F) float32 or bfloat16.
+// P >= 0: bcos / bsin are the (hop, F) chunk basis, twr / twi the twiddles.
+// P < 0 selects the full-K front end: bcos / bsin are the window-folded
+// (n_fft, F) basis, twr / twi and taps_host are not read.  Returns a cudaError_t.
 int att_melspec_forward(const void* x_rows, int x_int16, long long B, int n_tiles, int tile_t,
                         int n_rows_total, int hop, int overlap, int F, int T,
                         const float* bcos, const float* bsin, const float* twr,
@@ -280,62 +306,71 @@ int att_melspec_forward(const void* x_rows, int x_int16, long long B, int n_tile
                         const int* mel_hi, int M, const float* aff, void* out, int out_bf16,
                         void* stream) {
     using namespace att;
-    if (P < 0 || P >= kMaxTaps || overlap < 1 || tile_t + overlap - 1 > kMaxRows ||
+    const bool fullk = P < 0;
+    if (P >= kMaxTaps || overlap < 1 || tile_t + overlap - 1 > kMaxRows ||
         (tile_t != 32 && tile_t != 16 && tile_t != 8) || hop % kKC != 0) {
         return (int)cudaErrorInvalidValue;
     }
     size_t smem = forward_smem_bytes(tile_t, hop, overlap, F);
-    Taps taps = make_taps(taps_host, P);
+    Taps taps = fullk ? unit_taps() : make_taps(taps_host, P);
     dim3 grid((unsigned)(B * n_tiles));
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
-#define ATT_LAUNCH_FWD(I16, BF)                                                            \
+#define ATT_LAUNCH_FWD(I16, BF, FK)                                                        \
     do {                                                                                   \
-        err = allow_smem(melspec_forward_kernel<I16, BF>, smem);                           \
+        err = allow_smem(melspec_forward_kernel<I16, BF, FK>, smem);                       \
         if (err != cudaSuccess) return (int)err;                                           \
-        melspec_forward_kernel<I16, BF><<<grid, kThreads, smem, s>>>(                      \
+        melspec_forward_kernel<I16, BF, FK><<<grid, kThreads, smem, s>>>(                  \
             x_rows, n_tiles, tile_t, n_rows_total, hop, overlap, F, T, bcos, bsin, twr,    \
             twi, taps, power2, contrast, mel_bank, mel_lo, mel_hi, M, aff, out);           \
     } while (0)
+#define ATT_LAUNCH_FWD_FK(I16, BF)                                                         \
+    do {                                                                                   \
+        if (fullk) ATT_LAUNCH_FWD(I16, BF, true); else ATT_LAUNCH_FWD(I16, BF, false);     \
+    } while (0)
     if (x_int16) {
-        if (out_bf16) ATT_LAUNCH_FWD(true, true); else ATT_LAUNCH_FWD(true, false);
+        if (out_bf16) ATT_LAUNCH_FWD_FK(true, true); else ATT_LAUNCH_FWD_FK(true, false);
     } else {
-        if (out_bf16) ATT_LAUNCH_FWD(false, true); else ATT_LAUNCH_FWD(false, false);
+        if (out_bf16) ATT_LAUNCH_FWD_FK(false, true); else ATT_LAUNCH_FWD_FK(false, false);
     }
+#undef ATT_LAUNCH_FWD_FK
 #undef ATT_LAUNCH_FWD
     return (int)cudaGetLastError();
 }
 
 // partials: (B * n_tiles, 4, F) float32 scratch; stats: (4, F) float64 out
-// (rows: sum, sumsq, min, max per bin).  Returns a cudaError_t.
+// (rows: sum, sumsq, min, max per bin).  P < 0: the full-K front end, as in
+// att_melspec_forward.  Returns a cudaError_t.
 int att_melspec_stats(const void* x_rows, int x_int16, long long B, int n_tiles, int tile_t,
                       int n_rows_total, int hop, int overlap, int F, int T, const float* bcos,
                       const float* bsin, const float* twr, const float* twi,
                       const float* taps_host, int P, int contrast, float* partials,
                       double* stats, void* stream) {
     using namespace att;
-    if (P < 0 || P >= kMaxTaps || overlap < 1 || tile_t + overlap - 1 > kMaxRows ||
+    const bool fullk = P < 0;
+    if (P >= kMaxTaps || overlap < 1 || tile_t + overlap - 1 > kMaxRows ||
         (tile_t != 32 && tile_t != 16 && tile_t != 8) || hop % kKC != 0) {
         return (int)cudaErrorInvalidValue;
     }
     size_t smem = forward_smem_bytes(tile_t, hop, overlap, F);
-    Taps taps = make_taps(taps_host, P);
+    Taps taps = fullk ? unit_taps() : make_taps(taps_host, P);
     dim3 grid((unsigned)(B * n_tiles));
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
+#define ATT_LAUNCH_STATS(I16, FK)                                                          \
+    do {                                                                                   \
+        err = allow_smem(melspec_stats_kernel<I16, FK>, smem);                             \
+        if (err != cudaSuccess) return (int)err;                                           \
+        melspec_stats_kernel<I16, FK><<<grid, kThreads, smem, s>>>(                        \
+            x_rows, n_tiles, tile_t, n_rows_total, hop, overlap, F, T, bcos, bsin, twr,    \
+            twi, taps, contrast, partials);                                                \
+    } while (0)
     if (x_int16) {
-        err = allow_smem(melspec_stats_kernel<true>, smem);
-        if (err != cudaSuccess) return (int)err;
-        melspec_stats_kernel<true><<<grid, kThreads, smem, s>>>(
-            x_rows, n_tiles, tile_t, n_rows_total, hop, overlap, F, T, bcos, bsin, twr, twi,
-            taps, contrast, partials);
+        if (fullk) ATT_LAUNCH_STATS(true, true); else ATT_LAUNCH_STATS(true, false);
     } else {
-        err = allow_smem(melspec_stats_kernel<false>, smem);
-        if (err != cudaSuccess) return (int)err;
-        melspec_stats_kernel<false><<<grid, kThreads, smem, s>>>(
-            x_rows, n_tiles, tile_t, n_rows_total, hop, overlap, F, T, bcos, bsin, twr, twi,
-            taps, contrast, partials);
+        if (fullk) ATT_LAUNCH_STATS(false, true); else ATT_LAUNCH_STATS(false, false);
     }
+#undef ATT_LAUNCH_STATS
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     stats_reduce_kernel<<<dim3((F + 31) / 32, 4), kThreads, 0, s>>>(partials, B * n_tiles, F, stats);

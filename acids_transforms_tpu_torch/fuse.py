@@ -4,7 +4,7 @@
 ``fuse_forward(chain)`` inspects a ``ComposeAudioTransform`` and, when the
 structure matches the hot mel-spectrogram pattern
 
-    [Mono?] + STFT + Magnitude
+    [Mono?] + (STFT | DGT) + Magnitude
 
 returns a callable that computes the whole pipeline without materializing the
 complex spectrogram.  Any chain that does not match falls back to
@@ -13,11 +13,12 @@ complex spectrogram.  Any chain that does not match falls back to
 Backends:
 
 - ``"kernel"``: the hand-written CUDA kernel (``ops/cuda/spectral.py``):
-  chunk-DFT factorization + twiddle combine + taps conv + mel + contrast +
-  normalizer in one pass.  Needs a cosine-sum window, ``hop | n_fft`` and a
-  non-log contrast (``log``/``log10`` amplify the magnitude error without
-  bound near silent bins).  On a CPU tensor the same wrapper runs the kernel's
-  plain PyTorch version.
+  DFT + window + mel + contrast + normalizer in one pass, through the
+  chunk-factored front end for a cosine-sum window and the full-K front end
+  for any other (the DGT's gaussian).  Needs ``hop | n_fft`` and a non-log
+  contrast (``log``/``log10`` amplify the magnitude error without bound near
+  silent bins).  On a CPU tensor the same wrapper runs the kernel's plain
+  PyTorch version.
 - ``"eager"``: the fused-GEMM torch formulation (windowed frames against the
   DFT matrices, magnitude, mel, contrast and normalizer on the real/imaginary
   parts).
@@ -43,6 +44,7 @@ from .ops.cuda.spectral import (
 )
 from .ops.fft import _resolve_impl, stft_real
 from .transforms.base import AudioTransform, ComposeAudioTransform
+from .transforms.dgt import DGT
 from .transforms.norm import Normalize
 from .transforms.raw import Mono
 from .transforms.spectral_repr import Magnitude
@@ -74,7 +76,10 @@ def _match_melspec(chain: AudioTransform, backend: str = "eager"):
     if len(ts) != 2:
         return None
     stft_t, mag_t = ts
-    if type(stft_t) is not STFT or type(mag_t) is not Magnitude:
+    # offline STFT or DGT (the DGT's gaussian window rides the same fused
+    # formulation through its window buffer); realtime subclasses take frames,
+    # not signals, and never match
+    if type(stft_t) not in (STFT, DGT) or type(mag_t) is not Magnitude:
         return None
     if _resolve_impl(stft_t.impl, stft_t.n_fft) != "matmul":
         return None  # the fused formulation is the GEMM DFT
@@ -151,6 +156,7 @@ def _kernel_fused(mono: Optional[Mono], stft_t: STFT, mag_t: Magnitude, out_dtyp
             contrast,
             taps=stft_t._window_taps,
             out_dtype=out_dtype,
+            window=stft_t.window,
         )
         return mag_t._drop_nyquist(y.reshape(batch_shape + y.shape[1:]))
 
@@ -206,8 +212,8 @@ def fuse_forward(
         if match is None:
             raise ValueError(
                 "backend='kernel' requested but no fused kernel covers this "
-                "chain (needs a [Mono?] + STFT + Magnitude pattern with a "
-                "cosine-sum window, hop | n_fft, a non-log contrast and a "
+                "chain (needs a [Mono?] + (STFT | DGT) + Magnitude pattern with "
+                "hop | n_fft, a non-log contrast and a "
                 "shape inside fused_melspec_available); use backend='auto' "
                 "to fall back"
             )
@@ -244,7 +250,9 @@ def fuse_forward(
 def _match_fit(chain: AudioTransform):
     """Like :func:`_match_melspec` for the *fit* pass.  Fit statistics are
     taken on the non-mel contrasted magnitude, so the mel / keep_nyquist
-    options do not matter, only the framing and the contrast do."""
+    options do not matter, only the framing and the contrast do.  A window
+    without cosine-sum taps takes the full-K statistics kernel at every size
+    the kernel can hold; beyond that a CUDA tensor raises."""
     return _match_melspec(chain, backend="kernel")
 
 
@@ -313,6 +321,7 @@ def fuse_fit(
             stft_t.hop_length,
             mag_t.contrast_mode or "none",
             taps=stft_t._window_taps,
+            window=stft_t.window,
         )
         new_mag = mag_t.replace(norm=_norm_from_stats(norm, st))
         # Mono/STFT fits are no-ops in the matched pattern; only the

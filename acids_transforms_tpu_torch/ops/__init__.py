@@ -1,6 +1,6 @@
 """Numerical kernels of the port: framing, windows, DFT-as-GEMM STFT, mel,
-Griffin-Lim, and the hand-written CUDA kernels under ``ops.cuda``."""
-from . import fft, framing, griffinlim, mel, windows
+Griffin-Lim, PGHI, and the hand-written CUDA kernels under ``ops.cuda``."""
+from . import fft, framing, griffinlim, mel, pghi, windows
 from .fft import istft, stft
 from .framing import frame, overlap_add, pad_axis
 
@@ -9,6 +9,7 @@ __all__ = [
     "framing",
     "griffinlim",
     "mel",
+    "pghi",
     "windows",
     "stft",
     "istft",

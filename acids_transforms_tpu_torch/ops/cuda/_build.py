@@ -126,6 +126,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, p,                # nare, naim, rre, rim, scratch, stream
     ]
     lib.att_gl_step.restype = i
+    lib.att_pghi_synth_smem_bytes.argtypes = [i, i, i]
+    lib.att_pghi_synth_smem_bytes.restype = ll
+    lib.att_pghi_phases.argtypes = [
+        p, p, p, p,                      # mag, angles, abstol, phases
+        ll, i, i, f, f, f, i, i, p,      # B, T, F, fmul, 1 / fmul, carrier, bidir, bpt, stream
+    ]
+    lib.att_pghi_phases.restype = i
+    lib.att_pghi_synthesize.argtypes = [
+        p, p, p, p,                      # mag, phases, basis, out
+        ll, i, i, i, i, i, i, p,         # B, T, F, hop, overlap, Kp, rows, stream
+    ]
+    lib.att_pghi_synthesize.restype = i
 
 
 def load_library() -> ctypes.CDLL:

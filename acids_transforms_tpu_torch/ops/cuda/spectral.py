@@ -1,5 +1,5 @@
 """Fused mel-spectrogram forward and fit statistics (twin of the JAX
-``ops/pallas/spectral.py``, chunk-factored path).
+``ops/pallas/spectral.py``, chunk-factored and full-K paths).
 
 ``fused_melspec`` computes ``(contrast(|stft(x)|^power @ mel_bank) - offset) /
 scale`` and ``fused_melspec_stats`` the fit statistics of ``contrast(|stft(x)|)``
@@ -10,8 +10,12 @@ raise); on a CPU tensor they run the plain PyTorch version beside them
 card.  The plain versions are written from the factored formulation
 (``ops/fft.py``: chunk DFT, twiddle combine, hermitian taps conv).
 
-Only cosine-sum windows (``taps`` given) with ``hop | n_fft`` are covered; the
-full-K kernels for other windows are not ported yet (ROADMAP Queue 2, K4/K5).
+Two front ends share one epilogue.  With ``taps`` (a cosine-sum window) the
+chunk-factored one runs; with ``taps=None`` and a ``window`` (any window, the
+DGT's gaussian for one) the full-K one: frame ``t`` is the slice ``row[t hop :
+t hop + n_fft]`` of the same padded rows against a basis of ``n_fft x 2F`` with
+the window folded in, ``overlap`` times the multiply-adds of the factored form.
+Both need ``hop | n_fft``.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 
 from ..fft import (
     _chunk_dft_matrices,
+    _dft_matrices,
     _reflect_pad,
     _tables,
     _taps_conv,
@@ -46,7 +51,10 @@ MAX_SMEM = 232448                 # bytes of shared memory a block may use on sm
 _CONTRASTS = {"none": 0, None: 0, "log1p": 1}
 
 #: kernel launches made by the wrappers of this module, by kernel
-launches: Dict[str, int] = {"fused_melspec": 0, "fused_melspec_stats": 0}
+launches: Dict[str, int] = {
+    "fused_melspec": 0, "fused_melspec_stats": 0,
+    "fused_melspec_fullk": 0, "fused_melspec_stats_fullk": 0,
+}
 
 
 def reset_launches() -> None:
@@ -71,12 +79,13 @@ def _pick_tile(hop: int, overlap: int, n_bins: int) -> Optional[int]:
 
 
 def fused_melspec_available(n_fft: int, hop_length: int, taps) -> bool:
-    """Whether the chain's structure suits the CUDA kernels: cosine-sum taps
-    (P <= 4), ``hop | n_fft`` with 2 <= overlap <= 8, hop a multiple of 32.
-    A shape inside this gate whose narrowest tile still exceeds shared memory
-    (n_fft above 4096) is not silently sent elsewhere: the wrappers raise
-    ``NotImplementedError`` for it on a CUDA tensor."""
-    if taps is None or len(taps) > 5 or n_fft % hop_length != 0 or n_fft % 2:
+    """Whether the chain's structure suits the CUDA kernels: ``hop | n_fft``
+    with 2 <= overlap <= 8, hop a multiple of 32, and either cosine-sum taps
+    (P <= 4, the factored front end) or ``taps=None`` (any window, the full-K
+    front end).  A shape inside this gate whose narrowest tile still exceeds
+    shared memory (n_fft above 4096) is not silently sent elsewhere: the
+    wrappers raise ``NotImplementedError`` for it on a CUDA tensor."""
+    if (taps is not None and len(taps) > 5) or n_fft % hop_length != 0 or n_fft % 2:
         return False
     overlap = n_fft // hop_length
     return 2 <= overlap <= 8 and hop_length % 32 == 0
@@ -135,6 +144,29 @@ def _factored_spectrum(x, n_fft, hop, center, taps):
     return _taps_conv(Xre, Xim, taps)
 
 
+def _fullk_basis(window: torch.Tensor, n_fft: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``w[n] * (cos, -sin)(2 pi n k / n_fft)`` as two ``(n_fft, F)`` tensors."""
+    C, S = _tables(_dft_matrices, window.device, n_fft)
+    w = window.to(torch.float32)[:, None]
+    return (w * C).contiguous(), (w * S).contiguous()
+
+
+def _fullk_spectrum(x, n_fft, hop, center, window):
+    """(re, im) of the windowed STFT, the full-K kernels' front end: frames
+    are overlapping slices of the prepared rows, the window lies in the basis."""
+    rows, T, _ = _prepare_rows(x, n_fft, hop, center)
+    flat = _rows_to_float(rows).reshape(rows.shape[0], -1)
+    frames = flat.unfold(-1, n_fft, hop)[:, :T]
+    WC, WS = _fullk_basis(window.to(x.device), n_fft)
+    return torch.matmul(frames, WC), torch.matmul(frames, WS)
+
+
+def _spectrum(x, n_fft, hop, center, taps, window):
+    if taps is None:
+        return _fullk_spectrum(x, n_fft, hop, center, window)
+    return _factored_spectrum(x, n_fft, hop, center, taps)
+
+
 def _apply_contrast(mag: torch.Tensor, contrast) -> torch.Tensor:
     if contrast == "log1p":
         return torch.log1p(mag)
@@ -146,15 +178,15 @@ def _apply_contrast(mag: torch.Tensor, contrast) -> torch.Tensor:
     )
 
 
-def _check_input(x: torch.Tensor, n_fft: int, hop: int, taps) -> None:
+def _check_input(x: torch.Tensor, n_fft: int, hop: int, taps, window=None) -> None:
     if x.ndim != 2:
         raise ValueError("expected (B, L) audio, got shape %s" % (tuple(x.shape),))
     if x.dtype not in (torch.float32, torch.int16):
         raise TypeError("audio must be float32 or int16 PCM, got %s" % x.dtype)
-    if taps is None:
-        raise NotImplementedError(
-            "fused kernels for windows without cosine-sum taps are not ported "
-            "yet (ROADMAP Queue 2, K4/K5)"
+    if taps is None and (window is None or window.shape != (n_fft,)):
+        raise ValueError(
+            "taps=None selects the full-K front end, which needs the analysis "
+            "window as window=(n_fft,) tensor"
         )
     if n_fft % hop != 0:
         raise ValueError("the fused kernels require hop | n_fft")
@@ -172,10 +204,11 @@ def fused_melspec_reference(
     taps: Optional[tuple] = None,
     power: float = 1.0,
     out_dtype: torch.dtype = torch.float32,
+    window: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_melspec` (same arguments)."""
-    _check_input(x, n_fft, hop_length, taps)
-    re, im = _factored_spectrum(x, n_fft, hop_length, center, taps)
+    _check_input(x, n_fft, hop_length, taps, window)
+    re, im = _spectrum(x, n_fft, hop_length, center, taps, window)
     mag = re * re + im * im
     if power != 2.0:
         mag = torch.sqrt(mag)
@@ -192,11 +225,12 @@ def fused_melspec_stats_reference(
     contrast: str = "log1p",
     center: bool = True,
     taps: Optional[tuple] = None,
+    window: Optional[torch.Tensor] = None,
 ) -> dict:
     """Plain PyTorch version of :func:`fused_melspec_stats`."""
     x = x.reshape((-1, x.shape[-1]))
-    _check_input(x, n_fft, hop_length, taps)
-    re, im = _factored_spectrum(x, n_fft, hop_length, center, taps)
+    _check_input(x, n_fft, hop_length, taps, window)
+    re, im = _spectrum(x, n_fft, hop_length, center, taps, window)
     v = _apply_contrast(torch.sqrt(re * re + im * im), contrast)
     vd = v.double()
     return {
@@ -232,10 +266,17 @@ def _mel_band(bank: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hit
 
 
-def _kernel_tables(device, n_fft, hop):
+def _front_end(device, n_fft, hop, taps, window):
+    """What the entry points take for the front end: the two basis tensors,
+    the twiddle pointers (None for full-K), the taps array and ``P`` (-1
+    selects the full-K front end)."""
+    if taps is None:
+        WC, WS = _fullk_basis(window.to(device), n_fft)
+        return (WC, WS), None, None, (ctypes.c_float * 5)(), -1
     Ch, Sh = _tables(_chunk_dft_matrices, device, n_fft, hop)
     twr, twi = _tables(_twiddles, device, n_fft, hop)
-    return Ch, Sh, twr, twi
+    taps_c, P = _build.taps_array(taps)
+    return (Ch, Sh), twr.data_ptr(), twi.data_ptr(), taps_c, P
 
 
 def _stream() -> ctypes.c_void_p:
@@ -247,8 +288,8 @@ def _kernel_tile(n_fft, hop, taps) -> int:
     if not fused_melspec_available(n_fft, hop, taps):
         raise ValueError(
             "the CUDA melspec kernels do not cover n_fft=%d hop=%d (need "
-            "cosine-sum taps with P <= 4, hop | n_fft, 2 <= overlap <= 8 and "
-            "hop %% 32 == 0)" % (n_fft, hop)
+            "cosine-sum taps with P <= 4 or taps=None, hop | n_fft, 2 <= "
+            "overlap <= 8 and hop %% 32 == 0)" % (n_fft, hop)
         )
     tile_t = _pick_tile(hop, n_fft // hop, n_fft // 2 + 1)
     if tile_t is None:
@@ -272,13 +313,16 @@ def fused_melspec(
     taps: Optional[tuple] = None,
     power: float = 1.0,
     out_dtype: torch.dtype = torch.float32,
+    window: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fused ``(B, L) -> (B, T, n_mels)`` mel-spectrogram pipeline.
 
     Equivalent to ``(contrast(|stft(x)|^power @ mel_bank) - offset) / scale``
     with torch STFT conventions.  ``mel_bank=None`` skips the mel projection.
     ``taps``: cosine-sum coefficients of the analysis window
-    (``ops.fft.taps_for_window``).  ``offset`` / ``scale`` are floats or 0-d
+    (``ops.fft.taps_for_window``); ``taps=None`` with ``window`` (the analysis
+    window itself, any shape of window) takes the full-K front end instead,
+    and ``window`` is not read otherwise.  ``offset`` / ``scale`` are floats or 0-d
     tensors on ``x``'s device (no host synchronisation).
 
     ``x`` may be int16 PCM, read as ``x / 32768`` and converted inside the
@@ -289,14 +333,14 @@ def fused_melspec(
     if x.ndim == 1:
         return fused_melspec(
             x[None], n_fft, hop_length, mel_bank, offset, scale, contrast,
-            center, taps, power, out_dtype,
+            center, taps, power, out_dtype, window,
         )[0]
     if not x.is_cuda:
         return fused_melspec_reference(
             x, n_fft, hop_length, mel_bank, offset, scale, contrast, center,
-            taps, power, out_dtype,
+            taps, power, out_dtype, window,
         )
-    _check_input(x, n_fft, hop_length, taps)
+    _check_input(x, n_fft, hop_length, taps, window)
     tile_t = _kernel_tile(n_fft, hop_length, taps)
     if contrast not in _CONTRASTS:
         _apply_contrast(x, contrast)  # raises with the reason
@@ -308,7 +352,7 @@ def fused_melspec(
     F = n_fft // 2 + 1
     rows, T, n_tiles = _prepare_rows(x, n_fft, hop_length, center, tile_t)
     B = rows.shape[0]
-    Ch, Sh, twr, twi = _kernel_tables(dev, n_fft, hop_length)
+    (bc, bs), twr_p, twi_p, taps_c, P = _front_end(dev, n_fft, hop_length, taps, window)
     if mel_bank is not None:
         if mel_bank.device != dev or mel_bank.dtype != torch.float32 or mel_bank.shape[0] != F:
             raise ValueError("mel_bank must be float32 (n_bins, n_mels) on the input's device")
@@ -323,19 +367,19 @@ def fused_melspec(
          torch.as_tensor(scale, dtype=torch.float32, device=dev).reshape(())]
     )
     out = torch.empty((B, T, M), dtype=out_dtype, device=dev)
-    taps_c, P = _build.taps_array(taps)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         code = lib.att_melspec_forward(
             rows.data_ptr(), int(rows.dtype == torch.int16), B, n_tiles, tile_t,
             rows.shape[1], hop_length, n_fft // hop_length, F, T,
-            Ch.data_ptr(), Sh.data_ptr(), twr.data_ptr(), twi.data_ptr(),
+            bc.data_ptr(), bs.data_ptr(), twr_p, twi_p,
             taps_c, P, int(power == 2.0), _CONTRASTS[contrast],
             bank_p, lo_p, hi_p, M, aff.data_ptr(), out.data_ptr(),
             int(out_dtype == torch.bfloat16), _stream(),
         )
-    _build.check(code, "fused_melspec")
-    launches["fused_melspec"] += 1
+    name = "fused_melspec" if taps is not None else "fused_melspec_fullk"
+    _build.check(code, name)
+    launches[name] += 1
     return out
 
 
@@ -346,8 +390,10 @@ def fused_melspec_stats(
     contrast: str = "log1p",
     center: bool = True,
     taps: Optional[tuple] = None,
+    window: Optional[torch.Tensor] = None,
 ) -> dict:
-    """One-pass fit statistics of ``contrast(|stft(x)|)``.
+    """One-pass fit statistics of ``contrast(|stft(x)|)`` (``taps`` /
+    ``window``: see :func:`fused_melspec`).
 
     Returns ``{"sum", "sumsq", "min", "max", "count"}`` over the whole (batch,
     frames, bins) spectrogram without materializing it: 0-d tensors on ``x``'s
@@ -359,8 +405,8 @@ def fused_melspec_stats(
         x = x[None]
     x = x.reshape((-1, x.shape[-1]))
     if not x.is_cuda:
-        return fused_melspec_stats_reference(x, n_fft, hop_length, contrast, center, taps)
-    _check_input(x, n_fft, hop_length, taps)
+        return fused_melspec_stats_reference(x, n_fft, hop_length, contrast, center, taps, window)
+    _check_input(x, n_fft, hop_length, taps, window)
     tile_t = _kernel_tile(n_fft, hop_length, taps)
     if contrast not in _CONTRASTS:
         _apply_contrast(x, contrast)  # raises with the reason
@@ -368,21 +414,21 @@ def fused_melspec_stats(
     F = n_fft // 2 + 1
     rows, T, n_tiles = _prepare_rows(x, n_fft, hop_length, center, tile_t)
     B = rows.shape[0]
-    Ch, Sh, twr, twi = _kernel_tables(dev, n_fft, hop_length)
+    (bc, bs), twr_p, twi_p, taps_c, P = _front_end(dev, n_fft, hop_length, taps, window)
     partials = torch.empty((B * n_tiles, 4, F), dtype=torch.float32, device=dev)
     stats = torch.empty((4, F), dtype=torch.float64, device=dev)
-    taps_c, P = _build.taps_array(taps)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         code = lib.att_melspec_stats(
             rows.data_ptr(), int(rows.dtype == torch.int16), B, n_tiles, tile_t,
             rows.shape[1], hop_length, n_fft // hop_length, F, T,
-            Ch.data_ptr(), Sh.data_ptr(), twr.data_ptr(), twi.data_ptr(),
+            bc.data_ptr(), bs.data_ptr(), twr_p, twi_p,
             taps_c, P, _CONTRASTS[contrast], partials.data_ptr(),
             stats.data_ptr(), _stream(),
         )
-    _build.check(code, "fused_melspec_stats")
-    launches["fused_melspec_stats"] += 1
+    name = "fused_melspec_stats" if taps is not None else "fused_melspec_stats_fullk"
+    _build.check(code, name)
+    launches[name] += 1
     return {
         "sum": stats[0].sum(),
         "sumsq": stats[1].sum(),

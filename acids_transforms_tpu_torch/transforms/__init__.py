@@ -5,6 +5,7 @@ from .base import (
     InversionEnumType,
     NotInvertibleError,
 )
+from .dgt import DGT
 from .norm import Normalize
 from .raw import Mono
 from .spectral_repr import Dummy, Magnitude
@@ -17,6 +18,7 @@ __all__ = [
     "InversionEnumType",
     "Mono",
     "STFT",
+    "DGT",
     "Dummy",
     "Magnitude",
     "Normalize",
@@ -28,7 +30,7 @@ _UNPORTED = {
     "Stereo": "Queue 1 item 6", "MidSide": "Queue 1 item 6", "Window": "Queue 1 item 6",
     "MuLaw": "Queue 1 item 6", "Unsqueeze": "Queue 1 item 6", "Squeeze": "Queue 1 item 6",
     "Transpose": "Queue 1 item 6", "OneHot": "Queue 1 item 6", "MFCC": "Queue 1 item 7",
-    "DGT": "Queue 1 item 8", "Real": "Queue 1 item 8", "Imaginary": "Queue 1 item 8",
+    "Real": "Queue 1 item 8", "Imaginary": "Queue 1 item 8",
     "Phase": "Queue 1 item 8", "IF": "Queue 1 item 8",
     "SpectralRepresentation": "Queue 1 item 8", "Cartesian": "Queue 1 item 8",
     "Polar": "Queue 1 item 8", "PolarIF": "Queue 1 item 8",

@@ -1,39 +1,40 @@
 """Offline STFT transform (twin of the JAX ``transforms/stft.py:STFT``).
 
-Ported: forward, the complex least-squares inversion and the phaseless
-``griffin_lim`` mode.  The other phaseless modes (``keep_input``, ``random``,
-``sinebank``, the PGHI family) and ``RealtimeSTFT`` raise
+Ported: forward, the complex least-squares inversion and the phaseless modes
+``griffin_lim``, ``pghi``, ``pghi_bidir``, ``pghi_exact``, ``pghi_gl``,
+``random`` and ``keep_input``.  ``sinebank`` and ``RealtimeSTFT`` raise
 ``NotImplementedError`` until their slice (ROADMAP Queue 1 items 8 and 9).
+
+The PGHI modes work on any named window through its effective
+time-frequency ratio (``gamma``).  On a CUDA tensor ``pghi`` / ``pghi_bidir``
+launch the kernels of ``ops/cuda/pghi_kernel.py`` or raise; on a CPU tensor
+they run ``ops/pghi.py:pghi_scan`` and the ISTFT (both as the causal scan:
+the bidirectional order exists for the card).
 """
 from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ..ops.fft import istft, stft as stft_op, taps_for_window
 from ..ops.griffinlim import griffin_lim
-from ..ops.windows import get_window
+from ..ops.pghi import pghi_heap_numpy, pghi_scan, random_angles
+from ..ops.windows import get_window, window_gamma
 from .base import AudioTransform
 
 __all__ = ["STFT"]
 
-_UNPORTED_MODES = {
-    "keep_input": "Queue 1 item 8",
-    "random": "Queue 1 item 8",
-    "sinebank": "Queue 1 item 8",
-    "pghi": "Queue 1 item 8 / Queue 2 K6",
-    "pghi_bidir": "Queue 1 item 8 / Queue 2 K6",
-    "pghi_gl": "Queue 1 item 8 / Queue 2 K6",
-    "pghi_exact": "Queue 1 item 8",
-}
+_UNPORTED_MODES = {"sinebank": "Queue 1 item 8 (needs ops/interp.py)"}
 
 
 class STFT(AudioTransform):
     """Offline STFT with phaseless inversion.
 
-    Inversion modes: ``griffin_lim`` (default) is ported; ``keep_input``,
-    ``random``, ``sinebank`` and the PGHI family are known names that raise
+    Inversion modes: ``griffin_lim`` (default), ``keep_input``, ``random``
+    and the PGHI family (``pghi``, ``pghi_bidir``, ``pghi_exact``,
+    ``pghi_gl``); ``sinebank`` is a known name that raises
     ``NotImplementedError`` for now.
     """
 
@@ -65,6 +66,7 @@ class STFT(AudioTransform):
         self.hop_length = int(hop_length)
         self.seed = int(seed)
         self._draws = 0
+        self._phase_buffer = None
         self._refresh_windows()
         if inversion_mode not in self.get_inversion_modes():
             raise ValueError("Inversion mode %s not known" % inversion_mode)
@@ -100,6 +102,13 @@ class STFT(AudioTransform):
         self._refresh_windows()
 
     @property
+    def gamma(self) -> float:
+        """Effective time-frequency ratio for the PGHI phase gradients: for a
+        non-Gaussian analysis window the per-window constant times ``n_fft^2``
+        (``ops/windows.py:window_gamma``), which lets PGHI work on plain STFTs."""
+        return window_gamma(self.window_name, self.n_fft)
+
+    @property
     def ratio(self) -> int:
         return self.hop_length
 
@@ -132,10 +141,12 @@ class STFT(AudioTransform):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``(..., L) -> complex (..., T, n_fft//2 + 1)``."""
         self._check(x)
-        return stft_op(
+        spec = stft_op(
             x, self.n_fft, self.hop_length, self.window, impl=self.impl,
             taps=self._window_taps,
         )
+        self._stash_phase(spec)
+        return spec
 
     # ---------------------------------------------------------------- invert
     def invert(
@@ -144,11 +155,14 @@ class STFT(AudioTransform):
         inversion_mode: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
         init_phase: Optional[torch.Tensor] = None,
+        phase: Optional[torch.Tensor] = None,
+        angles: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         self._check(x)
         if not x.is_complex():
             return self.invert_without_phase(
-                x, inversion_mode, generator=generator, init_phase=init_phase
+                x, inversion_mode, generator=generator, init_phase=init_phase,
+                phase=phase, angles=angles,
             )
         return istft(
             x, self.n_fft, self.hop_length, self.inv_window, impl=self.impl,
@@ -161,10 +175,42 @@ class STFT(AudioTransform):
         inversion_mode: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
         init_phase: Optional[torch.Tensor] = None,
+        phase: Optional[torch.Tensor] = None,
+        tolerance: Optional[float] = None,
+        angles: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        """Audio from magnitudes ``(..., T, F)``.  ``generator`` drives every
+        random draw of the mode (none given: one derived from ``seed`` and the
+        number of draws so far); ``angles`` pins the PGHI modes' silent-bin
+        phases; ``phase`` is ``keep_input``'s explicit phase."""
         mode = self._resolve_mode(inversion_mode)
         if mode == "griffin_lim":
             return self.griffin_lim(mag, generator=generator, init_phase=init_phase)
+        if mode in ("pghi", "pghi_bidir"):
+            if mag.is_cuda:
+                from ..ops.cuda.pghi_kernel import pghi_invert_bidir, pghi_invert_fused
+
+                invert = pghi_invert_fused if mode == "pghi" else pghi_invert_bidir
+                return invert(
+                    mag, self.gamma, self.n_fft, self.hop_length, self.inv_window,
+                    tolerance=self._tol(tolerance), angles=self._angles(mag, generator, angles),
+                )
+            ph = self.pghi(mag, tolerance=tolerance, generator=generator, angles=angles)
+            return self.invert(torch.polar(mag, ph))
+        if mode == "pghi_exact":
+            return self.invert(torch.polar(mag, self.pghi_exact(mag, tolerance=tolerance)))
+        if mode == "pghi_gl":
+            # PGHI seeds the projection iteration.  A window without
+            # cosine-sum taps (the DGT's) runs the eager loop: the full-K
+            # Griffin-Lim kernel is not ported yet.
+            ph = self.pghi(mag, tolerance=tolerance, generator=generator, angles=angles)
+            return self.griffin_lim(mag, init_phase=ph)
+        if mode in ("keep_input", "random"):
+            if mode == "keep_input" and phase is None:
+                phase = self._recall_phase(mag)
+            if mode == "random" or phase is None:
+                phase = self._angles(mag, generator, None)
+            return self.invert(torch.polar(mag, phase.to(mag.dtype)))
         if mode in _UNPORTED_MODES:
             raise NotImplementedError(
                 "STFT inversion mode %r is not ported yet (ROADMAP %s)"
@@ -179,6 +225,60 @@ class STFT(AudioTransform):
         g.manual_seed(self.seed + self._draws)
         self._draws += 1
         return g
+
+    def _tol(self, tolerance: Optional[float]) -> float:
+        return float(self.tolerance if tolerance is None else tolerance)
+
+    def _angles(self, mag, generator, angles) -> torch.Tensor:
+        """Random phases for ``mag``'s bins unless ``angles`` pins them."""
+        if angles is not None:
+            return angles
+        return random_angles(mag.shape, mag.device, generator or self._next_generator())
+
+    # ------------------------------------------------------------------ pghi
+    def pghi(
+        self,
+        mag: torch.Tensor,
+        tolerance: Optional[float] = None,
+        generator: Optional[torch.Generator] = None,
+        angles: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Peak-anchored PGHI phases of ``mag (..., T, F)`` (offline: central
+        time stencil, no carried state).  On a CUDA tensor the recurrence runs
+        inside one kernel (or raises); on a CPU tensor ``pghi_scan`` serves."""
+        angles = self._angles(mag, generator, angles)
+        if mag.is_cuda:
+            from ..ops.cuda.pghi_kernel import pghi_phases_fused
+
+            return pghi_phases_fused(
+                mag, self.gamma, self.n_fft, self.hop_length,
+                tolerance=self._tol(tolerance), angles=angles,
+            )
+        return pghi_scan(
+            mag, self.gamma, self.n_fft, self.hop_length, tolerance=self._tol(tolerance),
+            time_stencil="central", angles=angles,
+        )
+
+    def pghi_exact(self, mag: torch.Tensor, tolerance: Optional[float] = None) -> torch.Tensor:
+        """Heap-ordered PGHI on the host, one spectrogram at a time (the oracle)."""
+        m = mag.detach().cpu().numpy()
+        flat = m.reshape((-1,) + m.shape[-2:])
+        out = np.stack([
+            pghi_heap_numpy(f, self.gamma, self.n_fft, self.hop_length, self._tol(tolerance))
+            for f in flat
+        ])
+        return torch.as_tensor(out.reshape(m.shape), dtype=torch.float32, device=mag.device)
+
+    # --------------------------------------------------- phase side-channel
+    def _stash_phase(self, spec: torch.Tensor) -> None:
+        """``keep_input`` support: remember the phase of the last forward."""
+        self._phase_buffer = torch.angle(spec.detach())
+
+    def _recall_phase(self, mag: torch.Tensor) -> Optional[torch.Tensor]:
+        buf = self._phase_buffer
+        if buf is None or buf.shape != mag.shape or buf.device != mag.device:
+            return None
+        return buf
 
     def griffin_lim(
         self,

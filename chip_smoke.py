@@ -4,11 +4,12 @@
     python3 chip_smoke.py [--batch 128] [--seconds 4.0] [--repeats 5]
 
 Builds the CUDA kernels from the sources in this checkout, holds each kernel
-against its plain PyTorch version on the card, drives the flagship log-mel
-chain (fit -> fused forward -> Griffin-Lim invert) through the public entry
-points at a real size (128 stereo clips of 4 s at 44.1 kHz by default), shows
-by the launch counters that the path went through the kernels, times them,
-and prints
+against its plain PyTorch version on the card, drives two chains through the
+public entry points at a real size (128 stereo clips of 4 s at 44.1 kHz by
+default): the flagship log-mel chain (fit -> fused forward -> Griffin-Lim
+invert) and the DGT magnitude chain (fit -> full-K fused forward -> PGHI
+invert).  It shows by the launch counters that each path went through its
+kernels, times them, and prints
 
 * a line with one JSON object ``{"kernels": [...]}`` (per kernel: launches on
   the main path, max error against the plain version, its time (``ms``, also
@@ -237,6 +238,81 @@ def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain
     return state, step1, step4, env
 
 
+def unit_spec(mag: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
+    """``mag * (cos, sin)(phase)`` over the clip's largest magnitude: what the
+    synthesis reads of a phase, on the scale of the audio's error."""
+    ph = phase.double()
+    z = torch.stack([mag.double() * torch.cos(ph), mag.double() * torch.sin(ph)])
+    return z / mag.double().amax(dim=(-2, -1), keepdim=True).clamp_min(1e-30)
+
+
+def check_pghi(name, mag, n_fft, hop, window, gamma, seed, results, n64=4):
+    """Kernel K's four entry points against their plain versions, and the
+    recurrence against its float64 run.
+
+    Phases are unwrapped float32 sums (1e5 rad and more late in a long clip,
+    one ulp 0.01 to 0.06 rad there), so they are compared on what is used of
+    them, ``mag * (cos, sin)(phase)`` over the clip's largest magnitude, and
+    on the audio.  The plain version adds in the kernel's order, so the two
+    should agree far better than either agrees with exact arithmetic.  How far
+    float32 is from exact is measured, not assumed: the plain version's
+    distance to the same recurrence in float64 (same masks, same order) on the
+    first ``n64`` clips.  The kernel must agree with the plain version within
+    1e-4, or, where float32 itself is further off, within that measured
+    distance (one logarithm that differs in its last bit between the card's
+    logf and PyTorch's moves the rounding of a sum by an ulp of the phase at
+    that point, and the difference then rides along the chain); and it may be
+    no further from the float64 run than 1.5 times the plain version plus
+    1e-4."""
+    from acids_transforms_tpu_torch.ops.cuda import pghi_kernel as pk
+
+    dev = mag.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    angles = 2 * math.pi * torch.rand(mag.shape, generator=g, device=dev)
+    kw = dict(tolerance=1e-2, angles=angles)
+    sub = slice(0, min(n64, mag.shape[0]))
+    kw64 = dict(tolerance=1e-2, angles=angles[sub])
+    for label, kern, plain in (("phases", pk.pghi_phases_fused, pk.pghi_phases_fused_reference),
+                               ("bidir phases", pk.pghi_phases_bidir, pk.pghi_phases_bidir_reference)):
+        ph_k = kern(mag, gamma, n_fft, hop, **kw)
+        ph_p = plain(mag, gamma, n_fft, hop, **kw)
+        ph_64 = plain(mag[sub], gamma, n_fft, hop, dtype=torch.float64, **kw64)
+        torch.cuda.synchronize()
+        require(torch.isfinite(ph_k).all().item() and ph_k.shape == mag.shape, f"K {name} {label}: bad output")
+        e_kp = (unit_spec(mag, ph_k) - unit_spec(mag, ph_p)).abs().max().item()
+        z64 = unit_spec(mag[sub], ph_64)
+        e_p64 = (unit_spec(mag[sub], ph_p[sub]) - z64).abs().max().item()
+        e_k64 = (unit_spec(mag[sub], ph_k[sub]) - z64).abs().max().item()
+        differ = (ph_k != ph_p).float().mean().item()
+        tol = max(1e-4, e_p64)
+        log(f"  K {name} {label}: kernel vs plain {e_kp:.3e} (tol {tol:.3g}; phases differ in "
+            f"{100 * differ:.4f}% of bins, by at most {(ph_k - ph_p).abs().max().item():.3g} rad of "
+            f"{ph_p.abs().max().item():.3g}); vs the float64 recurrence: plain {e_p64:.3e}, kernel {e_k64:.3e}")
+        require(e_kp <= tol, f"K {name} {label}: kernel disagrees with plain")
+        require(e_k64 <= 1.5 * e_p64 + 1e-4, f"K {name} {label}: kernel further from float64 than plain")
+        results["K_phases"] = max(results.get("K_phases", 0.0), e_kp)
+        results.setdefault("K_f64", {})[f"{name} {label}"] = (
+            e_p64, e_k64, (ph_p[sub].double() - ph_64).abs().max().item(), ph_64.abs().max().item())
+        # synthesis of the kernel's own phases: kernel vs plain (fp32 products
+        # in another order than cuBLAS, sincosf vs torch's sin and cos: 1e-4)
+        a_k = pk.pghi_synthesize_fused(mag, ph_k, n_fft, hop, window)
+        a_p = pk.pghi_synthesize_fused_reference(mag, ph_k, n_fft, hop, window)
+        torch.cuda.synchronize()
+        e_s = rel_err(a_k, a_p)
+        log(f"  K {name} synthesis of the {label}: audio rel {e_s:.3e} (tol 1e-04), shape {tuple(a_k.shape)}")
+        require(torch.isfinite(a_k).all().item() and a_k.shape == a_p.shape, f"K {name}: bad audio")
+        require(e_s <= 1e-4, f"K {name} synthesis disagrees with plain")
+        results["K_synth"] = max(results.get("K_synth", 0.0), abs_err(a_k, a_p))
+        # the whole inversion, kernels against plain versions
+        inv_k = (pk.pghi_invert_fused if label == "phases" else pk.pghi_invert_bidir)(
+            mag, gamma, n_fft, hop, window, **kw)
+        inv_p = pk.pghi_synthesize_fused_reference(mag, ph_p, n_fft, hop, window)
+        require(torch.equal(inv_k, a_k), f"K {name} {label}: the inversion is not phases then synthesis")
+        e_i = rel_err(inv_k, inv_p)
+        log(f"  K {name} inversion ({label}): audio rel {e_i:.3e} (tol {max(1e-4, tol):.3g})")
+        require(e_i <= max(1e-4, tol), f"K {name} inversion disagrees with plain")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=128, help="stereo clips on the main path")
@@ -252,9 +328,10 @@ def main() -> int:
 
     import acids_transforms_tpu_torch as att
     from acids_transforms_tpu_torch import transforms as T
-    from acids_transforms_tpu_torch.ops.cuda import _build, glstep, spectral
-    from acids_transforms_tpu_torch.ops.fft import taps_for_window
-    from acids_transforms_tpu_torch.ops.windows import get_window
+    from acids_transforms_tpu_torch.ops import pghi as pghi_ops
+    from acids_transforms_tpu_torch.ops.cuda import _build, glstep, pghi_kernel, spectral
+    from acids_transforms_tpu_torch.ops.fft import istft, taps_for_window
+    from acids_transforms_tpu_torch.ops.windows import dgt_gamma, gaussian_dgt_window, get_window
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full fp32
@@ -275,6 +352,13 @@ def main() -> int:
             == spectral._smem_bytes(tile_t, HOP, N_FFT // HOP, N_FFT // 2 + 1),
             "melspec shared-memory size: wrapper and source disagree",
         )
+    for n_fft_s, hop_s in ((N_FFT, HOP), (512, 64), (2048, 512)):
+        kp, rows = pghi_kernel._k_padded(n_fft_s // 2 + 1), pghi_kernel._pick_rows(n_fft_s, hop_s)
+        require(
+            lib.att_pghi_synth_smem_bytes(rows, n_fft_s // hop_s, kp)
+            == pghi_kernel._synth_smem_bytes(rows, n_fft_s // hop_s, kp),
+            "PGHI synthesis shared-memory size: wrapper and source disagree",
+        )
     for tile_t, chain in ((64, 4), (64, 1), (32, 3)):
         require(
             lib.att_gl_smem_bytes(tile_t, chain, N_FFT // HOP, HOP)
@@ -290,31 +374,39 @@ def main() -> int:
     mono = audio.mean(-2).contiguous()                 # (B, L)
     errs: dict = {}  # per kernel: largest absolute difference to the plain version seen
 
-    def check_forward(name, x, n_fft, hop, wname, bank, offset, scale):
-        taps = taps_for_window(get_window(wname, n_fft))
-        kw = dict(mel_bank=bank, offset=offset, scale=scale, contrast="log1p", taps=taps)
+    def front_end(wname, n_fft):
+        """(kernel letters, taps, window) of a named window; "gaussian" is the
+        DGT's and takes the full-K kernels E and F."""
+        if wname == "gaussian":
+            return ("E", "F"), None, gaussian_dgt_window(n_fft, device=dev)
+        return ("A", "B"), taps_for_window(get_window(wname, n_fft)), None
+
+    def check_forward(name, x, n_fft, hop, wname, bank, offset, scale, power=1.0, contrast="log1p"):
+        (A, _), taps, window = front_end(wname, n_fft)
+        kw = dict(mel_bank=bank, offset=offset, scale=scale, contrast=contrast, taps=taps,
+                  window=window, power=power)
         y_k = spectral.fused_melspec(x, n_fft, hop, **kw)
         y_p = spectral.fused_melspec_reference(x, n_fft, hop, **kw)
         torch.cuda.synchronize()
         e = rel_err(y_k, y_p)
         # fp32 sums in another order than cuBLAS: a few 1e-7 per product,
         # through sqrt, mel and log1p; 2e-5 leaves a decade of room
-        log(f"  A {name}: f32 rel {e:.3e} (tol 2e-05), shape {tuple(y_k.shape)}")
-        require(torch.isfinite(y_k).all().item() and y_k.shape == y_p.shape, f"A {name}: bad output")
-        require(e <= 2e-5, f"A {name} disagrees with plain")
+        log(f"  {A} {name}: f32 rel {e:.3e} (tol 2e-05), shape {tuple(y_k.shape)}")
+        require(torch.isfinite(y_k).all().item() and y_k.shape == y_p.shape, f"{A} {name}: bad output")
+        require(e <= 2e-5, f"{A} {name} disagrees with plain")
         y_b = spectral.fused_melspec(x, n_fft, hop, out_dtype=torch.bfloat16, **kw)
-        require(torch.equal(y_b, y_k.to(torch.bfloat16)), f"A {name}: bf16 store is not the rounded f32")
+        require(torch.equal(y_b, y_k.to(torch.bfloat16)), f"{A} {name}: bf16 store is not the rounded f32")
         x16 = torch.round(x * 32767.0).to(torch.int16)
         y_i = spectral.fused_melspec(x16, n_fft, hop, **kw)
         y_f = spectral.fused_melspec(x16.to(torch.float32) * 2.0 ** -15, n_fft, hop, **kw)
-        require(torch.equal(y_i, y_f), f"A {name}: int16 input differs from pre-converted float")
-        log(f"  A {name}: bf16 store bit-equal to rounding, int16 input bit-identical")
-        errs["A"] = max(errs.get("A", 0.0), abs_err(y_k, y_p))
+        require(torch.equal(y_i, y_f), f"{A} {name}: int16 input differs from pre-converted float")
+        log(f"  {A} {name}: bf16 store bit-equal to rounding, int16 input bit-identical")
+        errs[A] = max(errs.get(A, 0.0), abs_err(y_k, y_p))
 
     def check_stats(name, x, n_fft, hop, wname):
-        taps = taps_for_window(get_window(wname, n_fft))
-        s_k = spectral.fused_melspec_stats(x, n_fft, hop, "log1p", taps=taps)
-        s_p = spectral.fused_melspec_stats_reference(x, n_fft, hop, "log1p", taps=taps)
+        (_, Bk), taps, window = front_end(wname, n_fft)
+        s_k = spectral.fused_melspec_stats(x, n_fft, hop, "log1p", taps=taps, window=window)
+        s_p = spectral.fused_melspec_stats_reference(x, n_fft, hop, "log1p", taps=taps, window=window)
         e_sum = abs(s_k["sum"].item() - s_p["sum"].item()) / abs(s_p["sum"].item())
         e_sq = abs(s_k["sumsq"].item() - s_p["sumsq"].item()) / abs(s_p["sumsq"].item())
         e_min = abs(s_k["min"].item() - s_p["min"].item())
@@ -324,12 +416,12 @@ def main() -> int:
         # pick single values of log1p(|X|), equal to a few ulp: 1e-6 absolute
         # per unit of magnitude.
         tol_ext = 1e-6 * max(1.0, abs(s_p["max"].item()))
-        log(f"  B {name}: sum rel {e_sum:.3e}, sumsq rel {e_sq:.3e} (tol 1e-05); "
+        log(f"  {Bk} {name}: sum rel {e_sum:.3e}, sumsq rel {e_sq:.3e} (tol 1e-05); "
             f"min abs {e_min:.3e}, max abs {e_max:.3e} (tol {tol_ext:.1e}); count {s_k['count']}")
-        require(s_k["count"] == s_p["count"], f"B {name}: count differs")
-        require(e_sum <= 1e-5 and e_sq <= 1e-5, f"B {name}: sums disagree with plain")
-        require(e_min <= tol_ext and e_max <= tol_ext, f"B {name}: extrema disagree with plain")
-        errs["B"] = max(errs.get("B", 0.0), e_min, e_max)
+        require(s_k["count"] == s_p["count"], f"{Bk} {name}: count differs")
+        require(e_sum <= 1e-5 and e_sq <= 1e-5, f"{Bk} {name}: sums disagree with plain")
+        require(e_min <= tol_ext and e_max <= tol_ext, f"{Bk} {name}: extrema disagree with plain")
+        errs[Bk] = max(errs.get(Bk, 0.0), e_min, e_max)
 
     mag_t = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=N_FFT)
     stft_t = T.STFT(n_fft=N_FFT, hop_length=HOP)
@@ -339,6 +431,7 @@ def main() -> int:
     # ragged: T = 1 + 20000 // 128 = 157 is no multiple of the 32-frame tile,
     # blackman has P = 2 taps, another overlap and bank size
     rag = mono[:5, :20000].contiguous()
+    small = mono[:3, :30000].contiguous()
     mag_r = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=512)
     check_forward("ragged 512/128 blackman", rag, 512, 128, "blackman", mag_r.mel_bank, -0.2, 0.7)
     check_stats("ragged 512/128 blackman", rag, 512, 128, "blackman")
@@ -358,7 +451,6 @@ def main() -> int:
     # overlap 2, a hop wider than one pass of the synthesis product (512 > 256
     # sample columns; frame tile of 16 in A and B), and n_fft 4096 (frame tile
     # of 8, chains of 3)
-    small = mono[:3, :30000].contiguous()
     for n_fft, hop, wname in ((1024, 256, "hamming"), (1024, 128, "hamming"), (512, 256, "hann"),
                               (2048, 512, "hann"), (4096, 1024, "hann")):
         label = f"{n_fft}/{hop} {wname}"
@@ -375,6 +467,42 @@ def main() -> int:
         require(chain >= 2, f"no chain fits shared memory at {label}")
         check_gl(label, att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop, taps_s, w_s, mom,
                  args.seed + n_fft + hop, 1e-4, errs, chain=chain)
+    # E and F: the full-K front end under the DGT's gaussian window.  Main
+    # shape without mel (the DGT chain's configuration), then a dense mel
+    # bank, the power spectrogram, and the framings with tiles of 32 and 16
+    # and 8 (each call also holds the bf16 store and the int16 input)
+    check_forward("main shape gaussian", mono, N_FFT, HOP, "gaussian", None, 0.0123, 2.345)
+    check_stats("main shape gaussian", mono, N_FFT, HOP, "gaussian")
+    check_forward("main shape gaussian, mel", mono, N_FFT, HOP, "gaussian", mag_t.mel_bank, 0.0123, 2.345)
+    check_forward("gaussian, power 2, mel, no contrast", small, N_FFT, HOP, "gaussian", mag_t.mel_bank,
+                  0.05, 1.3, power=2.0, contrast="none")
+    for n_fft, hop in ((512, 128), (2048, 512), (4096, 1024)):
+        require(spectral.fused_melspec_available(n_fft, hop, None), f"full-K must cover {n_fft}/{hop}")
+        check_forward(f"{n_fft}/{hop} gaussian", rag, n_fft, hop, "gaussian", None, -0.2, 0.7)
+        check_stats(f"{n_fft}/{hop} gaussian", rag, n_fft, hop, "gaussian")
+    # K: the PGHI recurrence (causal and bidirectional), the synthesis and the
+    # whole inversion.  Main shape on 16 clips (the plain recurrence is a
+    # Python loop over 690 frames), two hops that need no special layout on
+    # the card (64: overlap 8; 192: neither a multiple nor a divisor of 128),
+    # the wide shapes (1025 bins: two bins per thread and synthesis tiles of
+    # 16 chunks; 2049 bins: four per thread, tiles of 8), and a batch with
+    # silent frames inside a clip and one all-silent clip.
+    w_dgt = gaussian_dgt_window(N_FFT, device=dev)
+    dgt_mag = att.ops.stft(mono[:16], N_FFT, HOP, w_dgt).abs()
+    check_pghi("main shape", dgt_mag, N_FFT, HOP, w_dgt, dgt_gamma(N_FFT), args.seed + 11, errs)
+    holes = dgt_mag[:3].clone()
+    holes[0, 100:104] = 0.0
+    holes[0, 300] = 0.0
+    holes[1] = 0.0
+    check_pghi("silent frames and a silent clip", holes, N_FFT, HOP, w_dgt, dgt_gamma(N_FFT),
+               args.seed + 12, errs)
+    for n_fft, hop in ((512, 64), (768, 192), (2048, 512), (4096, 1024)):
+        require(pghi_kernel.pghi_fused_available(n_fft, hop), f"PGHI kernels must cover {n_fft}/{hop}")
+        w_s = gaussian_dgt_window(n_fft, device=dev)
+        check_pghi(f"{n_fft}/{hop}", att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop, w_s,
+                   dgt_gamma(n_fft), args.seed + n_fft + hop, errs)
+    del holes
+
     # a shape whose narrowest tile exceeds shared memory is refused, not
     # quietly computed some other way
     w_big = get_window("hann", 8192, device=dev)
@@ -404,8 +532,8 @@ def main() -> int:
     counts = {**spectral.launches, **glstep.launches}
     log(f"  fit + forward {1e3 * (t1 - t0):.1f} ms, invert (Griffin-Lim, "
         f"{fitted[1].gl_iterations} iterations) {1e3 * (t2 - t1):.1f} ms; launches {counts}")
-    for k, v in counts.items():
-        require(v > 0, f"kernel {k} was not launched on the main path")
+    for k in ("fused_melspec", "fused_melspec_stats", "gl_momentum_step", "gl_momentum_chain"):
+        require(counts[k] > 0, f"kernel {k} was not launched on the main path")
     n_frames = 1 + L // HOP
     require(tuple(y.shape) == (B, n_frames, N_FFT // 2 + 1), f"log-mel shape {tuple(y.shape)}")
     require(torch.isfinite(y).all().item(), "log-mel not finite")
@@ -434,6 +562,8 @@ def main() -> int:
 
     stft_f = fitted[1]
     target = fitted[2].invert(y)
+    bank = fitted[2].mel_bank
+    off, scl = fitted[2].norm.offset, fitted[2].norm.scale
 
     def spectral_convergence(audio_rec):
         R = stft_f.forward(audio_rec).abs()
@@ -456,14 +586,83 @@ def main() -> int:
     require(e <= 1e-4, "STFT roundtrip out of budget")
     del back, xm
 
+    # ---------------------------------------------------- 4b. the DGT path
+    log(f"[4b] DGT path: Mono + DGT({N_FFT}, {HOP}, pghi) + Magnitude(unipolar, log1p, no mel) "
+        f"on {B} stereo clips of {args.seconds:g} s")
+    del y, rec, fitted, eager_fit
+    dgt_chain = T.Mono() + T.DGT(sr=SR, n_fft=N_FFT, hop_length=HOP, inversion_mode="pghi") + T.Magnitude(
+        mode="unipolar", contrast="log1p", mel=False)
+    spectral.reset_launches()
+    glstep.reset_launches()
+    pghi_kernel.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dgt_fit = att.fuse_fit(dgt_chain)(audio)
+    y_dgt = att.fuse_forward(dgt_fit)(audio)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rec_dgt = dgt_fit.invert(y_dgt)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dgt_counts = {**spectral.launches, **glstep.launches, **pghi_kernel.launches}
+    log(f"  fit + forward {1e3 * (t1 - t0):.1f} ms, invert (PGHI) {1e3 * (t2 - t1):.1f} ms; "
+        f"launches {dgt_counts}")
+    for k in ("fused_melspec_fullk", "fused_melspec_stats_fullk", "pghi_phases", "pghi_synthesize"):
+        require(dgt_counts[k] > 0, f"kernel {k} was not launched on the DGT path")
+    counts.update({k: dgt_counts[k] for k in ("fused_melspec_fullk", "fused_melspec_stats_fullk",
+                                              "pghi_phases", "pghi_synthesize")})
+    require(tuple(y_dgt.shape) == (B, n_frames, N_FFT // 2 + 1), f"DGT magnitude shape {tuple(y_dgt.shape)}")
+    require(torch.isfinite(y_dgt).all().item(), "DGT magnitude not finite")
+    require(tuple(rec_dgt.shape) == (B, 1, HOP * (n_frames - 1)), f"PGHI audio shape {tuple(rec_dgt.shape)}")
+    require(torch.isfinite(rec_dgt).all().item(), "PGHI audio not finite")
+    dgt_eager_fit = dgt_chain.fit(audio)
+    for name in ("offset", "scale"):
+        a = getattr(dgt_fit[2].norm, name).item()
+        b = getattr(dgt_eager_fit[2].norm, name).item()
+        e = abs(a - b) / abs(dgt_eager_fit[2].norm.scale.item())
+        log(f"  fit {name}: kernel {a:.7g}, eager {b:.7g}, difference / scale {e:.3e} (tol 1e-05)")
+        require(e <= 1e-5, f"fused DGT fit {name} differs from chain.fit")
+    del dgt_eager_fit
+    y_eager = dgt_fit.forward(audio)
+    e = rel_err(y_dgt, y_eager)
+    log(f"  fused forward vs eager chain.forward: rel {e:.3e} (tol 1e-04)")
+    require(e <= 1e-4, "fused DGT forward differs from chain.forward")
+    del y_eager
+    dgt_f = dgt_fit[1]
+    xm = dgt_fit[0].forward(audio)
+    back = dgt_f.invert(dgt_f.forward(xm))
+    e = rel_err(back, xm[..., : back.shape[-1]])
+    log(f"  complex DGT -> inverse roundtrip: rel {e:.3e} (tol 1e-04)")
+    require(e <= 1e-4, "DGT roundtrip out of budget")
+    del back, xm
+    dgt_target = dgt_fit[2].invert(y_dgt)
+
+    def dgt_convergence(audio_rec, tgt):
+        R = dgt_f.forward(audio_rec).abs()
+        n = min(R.shape[-2], tgt.shape[-2])
+        return (torch.linalg.norm(R[:, :n] - tgt[:, :n]) / torch.linalg.norm(tgt)).item()
+
+    s_kernel = dgt_convergence(rec_dgt.squeeze(-2), dgt_target)
+    # the eager route on the same magnitudes: pghi_scan + istft, plain PyTorch
+    n_e = min(B, 16)
+    g_e = torch.Generator(device=dev).manual_seed(dgt_f.seed)
+    ph_e = pghi_ops.pghi_scan(dgt_target[:n_e], dgt_f.gamma, N_FFT, HOP, tolerance=dgt_f.tolerance,
+                              time_stencil="central", generator=g_e)
+    rec_e = istft(torch.polar(dgt_target[:n_e], ph_e), N_FFT, HOP, dgt_f.inv_window)
+    s_eager = dgt_convergence(rec_e, dgt_target[:n_e])
+    s_kernel_e = dgt_convergence(rec_dgt.squeeze(-2)[:n_e], dgt_target[:n_e])
+    bound = max(1.15 * s_eager, s_eager + 0.02)
+    log(f"  PGHI spectral convergence: kernels {s_kernel:.5f} on all clips, {s_kernel_e:.5f} on the first "
+        f"{n_e}; eager pghi_scan + istft there {s_eager:.5f} (must be < {bound:.5f})")
+    require(s_kernel_e < bound, "kernel PGHI converges worse than the eager scan")
+    del ph_e, rec_e, rec_dgt
+
     # ------------------------------------------------------------ 5. times
     log("[5] kernel times at the main-path shape (CUDA events, median of "
         f"{args.repeats} after warm-up)")
     F = N_FFT // 2 + 1
     Tn = n_frames
     ov = N_FFT // HOP
-    bank = fitted[2].mel_bank
-    off, scl = fitted[2].norm.offset, fitted[2].norm.scale
     window = stft_f.window
     kw = dict(mel_bank=bank, offset=off, scale=scl, contrast="log1p", taps=taps_main)
     nnz = int((bank != 0).sum().item())
@@ -550,14 +749,93 @@ def main() -> int:
              bound=bound_of(gl_bytes, 4 * gl_need),
              ceiling=ceiling_of(4 * gl_flops)),
     ]
+    # ---- the DGT path's kernels.  E and F: the same function as A and B
+    # under another window (no mel), so the same bound; their design does the
+    # full n_fft-long product per frame, `overlap` times the chunk products.
+    kw_e = dict(mel_bank=None, offset=dgt_fit[2].norm.offset, scale=dgt_fit[2].norm.scale,
+                contrast="log1p", taps=None, window=dgt_f.window)
+    fullk_flops = 4.0 * B * Tn * N_FFT * F                   # cos and sin products of every frame
+    e_need = fft_flops + B * Tn * (N_FFT + 7.0 * F)
+    gamma = dgt_f.gamma
+    k_angles = 2 * math.pi * torch.rand(dgt_target.shape, device=dev,
+                                        generator=torch.Generator(device=dev).manual_seed(args.seed + 21))
+    k_phases = pghi_kernel.pghi_phases_fused(dgt_target, gamma, N_FFT, HOP, tolerance=dgt_f.tolerance,
+                                             angles=k_angles)
+    silent = (dgt_target <= pghi_kernel._abstol(dgt_target, dgt_f.tolerance)[:, None, None]).float().mean().item()
+    n_el = float(B * Tn * F)
+    n_audio = float(B * (Tn + ov - 1) * HOP)
+    # recurrence: magnitudes read, phases written, angles read at the silent
+    # bins only (this run's share); three logarithms, the gradients and the
+    # two scans are some 150 operations per bin
+    phases_bound = bound_of(4.0 * n_el * (2.0 + silent), 150.0 * n_el)
+    # synthesis: magnitudes and phases read, the overlap-add signal written;
+    # an inverse FFT per frame, sincos and the products per bin, the window
+    synth_need = fft_flops + B * Tn * (40.0 * F + 2.0 * N_FFT)
+    synth_bound = bound_of(8.0 * n_el + 4.0 * n_audio, synth_need)
+    synth_flops = 2.0 * n_audio * ov * 2.0 * F               # the product this design runs
+
+    def lib_dgt_spec(x):
+        return torch.stft(x, N_FFT, HOP, window=dgt_f.window, center=True, pad_mode="reflect",
+                          return_complex=True).abs().transpose(-2, -1)
+
+    def lib_dgt_stats():
+        v = torch.log1p(lib_dgt_spec(mono))
+        return v.sum(), (v * v).sum(), v.min(), v.max()
+
+    def lib_istft():
+        return torch.istft(torch.polar(dgt_target, k_phases).transpose(-2, -1), N_FFT, HOP,
+                           window=dgt_f.inv_window)
+
+    def whole_inversion():
+        return pghi_kernel.pghi_invert_fused(dgt_target, gamma, N_FFT, HOP, dgt_f.inv_window,
+                                             tolerance=dgt_f.tolerance, angles=k_angles)
+
+    pghi_src = "acids_transforms_tpu_torch/csrc/pghi.cu"
+    pghi_tpu = "acids_transforms_tpu/ops/pallas/pghi_kernel.py:124"
+    specs += [
+        dict(key="E", name="fused_melspec_fullk", source="acids_transforms_tpu_torch/csrc/spectral.cu",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:715",
+             launches=counts["fused_melspec_fullk"],
+             run=lambda: spectral.fused_melspec(mono, N_FFT, HOP, **kw_e),
+             plain=lambda: spectral.fused_melspec_reference(mono, N_FFT, HOP, **kw_e),
+             library=lambda: (torch.log1p(lib_dgt_spec(mono)) - kw_e["offset"]) / kw_e["scale"],
+             bound=bound_of(4.0 * B * L + 4.0 * n_el, e_need),
+             ceiling=ceiling_of(fullk_flops + 7.0 * n_el)),
+        dict(key="F", name="fused_melspec_stats_fullk", source="acids_transforms_tpu_torch/csrc/spectral.cu",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:888",
+             launches=counts["fused_melspec_stats_fullk"],
+             run=lambda: spectral.fused_melspec_stats(mono, N_FFT, HOP, "log1p", taps=None, window=dgt_f.window),
+             plain=lambda: spectral.fused_melspec_stats_reference(
+                 mono, N_FFT, HOP, "log1p", taps=None, window=dgt_f.window),
+             library=lib_dgt_stats,
+             bound=bound_of(4.0 * B * L, e_need + 2.0 * n_el),
+             ceiling=ceiling_of(fullk_flops + 9.0 * n_el)),
+        # the recurrence has no single PyTorch call to stand beside it
+        dict(key="K_phases", name="pghi_phases", source=pghi_src, replaces=pghi_tpu,
+             launches=counts["pghi_phases"],
+             run=lambda: pghi_kernel.pghi_phases_fused(dgt_target, gamma, N_FFT, HOP,
+                                                       tolerance=dgt_f.tolerance, angles=k_angles),
+             plain=lambda: pghi_kernel.pghi_phases_fused_reference(
+                 dgt_target, gamma, N_FFT, HOP, tolerance=dgt_f.tolerance, angles=k_angles),
+             plain_once=True, library=None, bound=phases_bound, ceiling=ceiling_of(150.0 * n_el)),
+        dict(key="K_synth", name="pghi_synthesize", source=pghi_src, replaces=pghi_tpu,
+             launches=counts["pghi_synthesize"],
+             run=lambda: pghi_kernel.pghi_synthesize_fused(dgt_target, k_phases, N_FFT, HOP, dgt_f.inv_window),
+             plain=lambda: pghi_kernel.pghi_synthesize_fused_reference(
+                 dgt_target, k_phases, N_FFT, HOP, dgt_f.inv_window),
+             library=lib_istft, bound=synth_bound, ceiling=ceiling_of(synth_flops + 40.0 * n_el)),
+    ]
     kernels = []
     for s in specs:
         # turns: plain, kernel, kernel, plain -- the kernel's time is the
         # median over both of its turns' repeats
-        p1 = time_ms(s["plain"], max(1, args.repeats // 2))
+        # (a plain version that is a Python loop over frames takes seconds:
+        # it runs once per turn, without warm-up)
+        p_rep, p_warm = (1, 0) if s.get("plain_once") else (max(1, args.repeats // 2), 2)
+        p1 = time_ms(s["plain"], p_rep, p_warm)
         k_ms = time_ms(s["run"], args.repeats)
-        p2 = time_ms(s["plain"], max(1, args.repeats // 2))
-        l_ms = time_ms(s["library"], max(1, args.repeats // 2))
+        p2 = time_ms(s["plain"], p_rep, p_warm)
+        l_ms = None if s["library"] is None else time_ms(s["library"], max(1, args.repeats // 2))
         b_ms, b_by = s["bound"]
         row = dict(name=s["name"], route="cuda", source=s["source"], replaces=s["replaces"],
                    launches=s["launches"], max_abs_err=errs[s["key"]], ms=k_ms, kernel_ms=k_ms,
@@ -565,10 +843,19 @@ def main() -> int:
                    design_fma_ceiling_ms=s["ceiling"])
         kernels.append(row)
         log(f"  {s['key']} {s['name']}: {k_ms:.3f} ms, plain {row['plain_ms']:.3f} ms, "
-            f"library {l_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by} "
+            f"library {'none' if l_ms is None else format(l_ms, '.3f') + ' ms'}, bound {b_ms:.3f} ms by {b_by} "
             f"({100 * b_ms / k_ms:.1f}% of it reached); fp32 FMA ceiling of this design "
             f"{s['ceiling']:.3f} ms ({100 * s['ceiling'] / k_ms:.1f}%)")
 
+    inv_ms = time_ms(whole_inversion, args.repeats)
+    whole_b, whole_by = bound_of(4.0 * n_el * (1.0 + silent) + 4.0 * n_audio, synth_need + 150.0 * n_el)
+    log(f"  K pghi_invert_fused (phases then synthesis, envelope division and trim included): "
+        f"{inv_ms:.3f} ms; the function's bound (magnitudes and the silent bins' angles read, "
+        f"{100 * silent:.1f}% of bins, audio written) {whole_b:.3f} ms by {whole_by}")
+    for label, (e_p64, e_k64, d_ph, ph_max) in errs.get("K_f64", {}).items():
+        log(f"  K float32 against the float64 recurrence, {label}: mag * e^(i phase) off by "
+            f"{e_p64:.3e} (plain) / {e_k64:.3e} (kernel) of the largest magnitude; phases off by up to "
+            f"{d_ph:.3g} rad of {ph_max:.3g}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

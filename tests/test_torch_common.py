@@ -53,6 +53,51 @@ def chains(n_fft=N_FFT, hop=HOP, window="hann", gl_iterations=6, **mag_kw):
     return jc, pc
 
 
+def dgt_chains(n_fft=N_FFT, hop=HOP, inversion_mode="pghi", **mag_kw):
+    """The DGT magnitude chain in both packages, unfitted."""
+    kw = dict(mode="unipolar", contrast="log1p", mel=False, n_fft=n_fft)
+    kw.update(mag_kw)
+    jc = JT.Mono() + JT.DGT(n_fft=n_fft, hop_length=hop, inversion_mode=inversion_mode) + JT.Magnitude(**kw)
+    pc = PT.Mono(device="cpu") + PT.DGT(
+        n_fft=n_fft, hop_length=hop, inversion_mode=inversion_mode, device="cpu"
+    ) + PT.Magnitude(device="cpu", **kw)
+    return jc, pc
+
+
+def fitted_dgt_chains(seed: int = 21, batch: int = 3, n: int = 9000, **kw):
+    """Seeded DGT-chain fixture: the audio, the JAX chain fitted on it and the
+    port chain holding the same state (JAX leaves carried over as numpy)."""
+    import jax.numpy as jnp
+
+    jc, pc = dgt_chains(**kw)
+    x = make_audio(seed, batch=batch, n=n)
+    jf = jc.fit(jnp.asarray(x))
+    carry_over(jf, pc)
+    return x, jf, pc
+
+
+def jax_angles(shape, seed: int = 0) -> np.ndarray:
+    """``2 pi uniform(PRNGKey(seed))``: the JAX scan's draw for silent bins,
+    to pin the port's ``angles=`` to."""
+    import jax
+    import jax.numpy as jnp
+
+    return np.array(2.0 * jnp.pi * jax.random.uniform(jax.random.PRNGKey(seed), shape, dtype=jnp.float32))
+
+
+def tones(n: int, freqs, sr: int = SR) -> np.ndarray:
+    """One clip per entry of ``freqs`` (a frequency or a tuple of partials):
+    low-pitched sines, whose audible bins keep small carrier phases, so float32
+    phases of both packages agree to 1e-3 whatever the order of additions."""
+    t = np.arange(n) / sr
+    out = []
+    for f in freqs:
+        fs = f if isinstance(f, (tuple, list)) else (f,)
+        out.append(sum(np.sin(2 * np.pi * fi * t) / (i + 1) for i, fi in enumerate(fs)))
+    x = np.stack(out)
+    return (0.7 * x / np.abs(x).max()).astype(np.float32)
+
+
 def _leaves_of(t):
     """Array leaves of one JAX transform as nested numpy mappings, taken from
     its pytree flattening (``transforms/base.py:_tree_flatten``)."""
@@ -93,3 +138,12 @@ def test_state_keys_of_the_flagship_chain():
         "2.norm.offset", "2.norm.scale", "2.norm.needs_scaling",
     }
     assert not bool(st["2.norm.needs_scaling"])
+
+
+def test_state_keys_of_the_dgt_chain():
+    _, jf, pc = fitted_dgt_chains()
+    st = jax_state(jf)
+    assert set(st) == {"1.window", "1.inv_window", "2.mel_bank", "2.inverse_mel_bank",
+                       "2.norm.offset", "2.norm.scale", "2.norm.needs_scaling"}
+    assert np.array_equal(t2n(pc[1].window), st["1.window"])
+    assert pc[1]._window_taps is None and not pc[2].norm.needs_scaling

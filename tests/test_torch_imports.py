@@ -26,6 +26,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import sys\n"
         "import acids_transforms_tpu_torch as att\n"
         "import acids_transforms_tpu_torch.ops.cuda.spectral, acids_transforms_tpu_torch.ops.cuda.glstep\n"
+        "import acids_transforms_tpu_torch.ops.cuda.pghi_kernel, acids_transforms_tpu_torch.ops.pghi\n"
+        "import acids_transforms_tpu_torch.transforms.dgt\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'jaxlib' or m.startswith('acids_transforms_tpu.') or m == 'acids_transforms_tpu']\n"
         "assert not bad, bad\n"
@@ -62,6 +64,7 @@ def test_default_device_raises_without_a_card():
     for build in (
         lambda: T.Mono(),
         lambda: T.STFT(n_fft=512, hop_length=128),
+        lambda: T.DGT(n_fft=512, hop_length=128),
         lambda: T.Magnitude(n_fft=512),
         lambda: T.Normalize("unipolar"),
         lambda: att.resolve_device(None),
@@ -101,7 +104,26 @@ def test_chip_smoke_refuses_to_run_without_a_card():
 
 def test_kernel_sources_are_in_the_package():
     names = {p.name for p in (PORT / "csrc").iterdir()}
-    assert {"spectral.cu", "glstep.cu", "dft_common.cuh"} <= names
-    for name in ("spectral.cu", "glstep.cu"):
+    assert {"spectral.cu", "glstep.cu", "pghi.cu", "dft_common.cuh", "synth_ola.cuh"} <= names
+    for name in ("spectral.cu", "glstep.cu", "pghi.cu"):
         text = (PORT / "csrc" / name).read_text()
         assert "Replaces" in text and "What bounds" in text and "Design" in text
+
+
+def test_pghi_entry_points_default_to_the_card():
+    """The new modules' entry points run on the card unless asked otherwise:
+    a DGT built without ``device="cpu"`` raises here, and the kernel wrappers
+    take their plain versions only because the tensor lies on the CPU (no
+    launch is counted)."""
+    import torch
+
+    from acids_transforms_tpu_torch import transforms as T
+    from acids_transforms_tpu_torch.ops.cuda import pghi_kernel as pk
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            T.DGT(n_fft=512, hop_length=128, inversion_mode="pghi")
+    mag = torch.rand(1, 6, 257)
+    ph = pk.pghi_phases_fused(mag, 1000.0, 512, 128)
+    assert ph.shape == mag.shape and ph.device.type == "cpu"
+    assert pk.launches == {"pghi_phases": 0, "pghi_synthesize": 0}

@@ -36,10 +36,16 @@ def test_dual_window_and_envelope_equal_jax():
 
 
 def test_unported_window_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pwin.get_window("kaiser", 512)
-    with pytest.raises(ValueError):
-        pwin.get_window("nonsense", 512)
+    # no named window is left unported: kaiser and bartlett resolve, and the
+    # gaussian is the DGT's own (no name in either package)
+    assert not hasattr(pwin, "_UNPORTED")
+    for name in ("kaiser", "bartlett"):
+        assert pwin.get_window(name, 512).shape == (512,)
+    for name in ("nonsense", "gaussian"):
+        with pytest.raises(ValueError):
+            pwin.get_window(name, 512)
+        with pytest.raises(ValueError):
+            jwin.get_window(name, 512)
 
 
 @pytest.mark.parametrize("keep_nyquist", [True, False])

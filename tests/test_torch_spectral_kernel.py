@@ -169,7 +169,8 @@ def test_dispatch_gates_and_explicit_kernel_request():
         fitted_bad = patt.fuse_fit(bad)(x)               # auto falls back to the cascade
         y = patt.fuse_forward(fitted_bad)(x)             # and to the eager formulation
         assert torch.isfinite(y).all()
-    assert not pk.fused_melspec_available(N_FFT, HOP, None)
+    assert pk.fused_melspec_available(N_FFT, HOP, None)              # full-K: any window
+    assert not pk.fused_melspec_available(N_FFT, 100, None)
     assert pk.fused_melspec_available(1024, 256, (0.5, -0.25))
     assert not pk.fused_melspec_available(512, 32, (0.5, -0.25))     # overlap 16
     # shared memory is no silent gate: the frame tile narrows with n_fft, and
@@ -191,13 +192,15 @@ def test_dispatch_gates_and_explicit_kernel_request():
         patt.fuse_forward(pc, out_dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         patt.fuse_forward(pc, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pk.fused_melspec(torch.zeros(1, 3000), N_FFT, HOP, taps=None)
+    with pytest.raises(ValueError, match="window"):
+        pk.fused_melspec(torch.zeros(1, 3000), N_FFT, HOP, taps=None)   # full-K needs the window
     with pytest.raises(ValueError, match="log"):
         pk.fused_melspec(torch.zeros(1, 3000), N_FFT, HOP, contrast="log", taps=(0.5, -0.25))
     only_stft = chains()[1][1]
     assert patt.fuse_forward(only_stft) == only_stft.forward  # unmatched: chain.forward
-    assert pk.launches == {"fused_melspec": 0, "fused_melspec_stats": 0}  # nothing launched on the CPU
+    assert set(pk.launches) == {"fused_melspec", "fused_melspec_stats", "fused_melspec_fullk",
+                                "fused_melspec_stats_fullk"}
+    assert not any(pk.launches.values())                 # nothing launched on the CPU
 
 
 def test_masked_fit_takes_the_exact_cascade():
@@ -209,3 +212,80 @@ def test_masked_fit_takes_the_exact_cascade():
     assert float(a[2].norm.scale) == float(b[2].norm.scale)
     c = pc.fit(x)
     assert float(c[2].norm.scale) >= float(b[2].norm.scale)
+
+
+# ---- kernels E and F: the full-K front end (taps=None, any window) ----------
+def gaussian64(n_fft):
+    lam = (-(n_fft ** 2) / (8.0 * np.log(0.01))) ** 0.5
+    n = np.arange(0, 2 * n_fft + 1) - n_fft
+    return np.exp(-(n ** 2) / (2.0 * (2.0 * lam) ** 2))[1: 2 * n_fft + 1: 2]
+
+
+@pytest.fixture(scope="module")
+def fullk():
+    from test_torch_common import dgt_chains
+
+    _, pc = dgt_chains()
+    x = make_audio(17, batch=2, n=7000)[:, 0]
+    return x, pc[1].window, chains()[1][2].mel_bank
+
+
+@pytest.mark.parametrize("mel,power,contrast", [(False, 1.0, "log1p"), (True, 1.0, "log1p"),
+                                                (True, 2.0, "none"), (False, 2.0, "none")])
+@pytest.mark.parametrize("pcm", [False, True], ids=["f32in", "int16in"])
+def test_plain_fullk_forward_vs_pallas_kernel_and_oracle(fullk, mel, power, contrast, pcm):
+    from acids_transforms_tpu.ops.pallas.spectral import fused_melspec as jfm
+
+    x, w, bank = fullk
+    bank = bank if mel else None
+    xin = np.round(x * 32767).astype(np.int16) if pcm else x
+    kw = dict(taps=None, power=power)
+    yp = pk.fused_melspec(torch.as_tensor(xin), N_FFT, HOP, bank, 0.1, 1.7, contrast, window=w, **kw)
+    yj = jfm(jnp.asarray(xin), N_FFT, HOP, jnp.asarray(t2n(w)),
+             None if bank is None else jnp.asarray(t2n(bank)), 0.1, 1.7, contrast, interpret=True, **kw)
+    assert tuple(yp.shape) == tuple(yj.shape) and rel(t2n(yp), np.asarray(yj)) <= TOL
+    xf = xin.astype(np.float64) / 32768.0 if pcm else x
+    xp = np.pad(xf, [(0, 0), (N_FFT // 2, N_FFT // 2)], mode="reflect")
+    idx = np.arange(1 + x.shape[-1] // HOP)[:, None] * HOP + np.arange(N_FFT)[None, :]
+    ref = np.abs(np.fft.rfft(xp[:, idx] * gaussian64(N_FFT), axis=-1)) ** power
+    if mel:
+        ref = ref @ t2n(bank).astype(np.float64)
+    ref = ((np.log1p(ref) if contrast == "log1p" else ref) - 0.1) / 1.7
+    assert rel(t2n(yp), ref) <= TOL
+    if pcm:
+        pre = torch.as_tensor(xin.astype(np.float32) * 2.0 ** -15)
+        assert torch.equal(yp, pk.fused_melspec(pre, N_FFT, HOP, bank, 0.1, 1.7, contrast, window=w, **kw))
+    yb = pk.fused_melspec(torch.as_tensor(xin), N_FFT, HOP, bank, 0.1, 1.7, contrast, window=w,
+                          out_dtype=torch.bfloat16, **kw)
+    assert yb.dtype == torch.bfloat16 and torch.equal(yb, yp.to(torch.bfloat16))   # the store only rounds
+
+
+@pytest.mark.parametrize("n_fft,hop", [(512, 128), (1024, 256), (512, 64)])
+def test_plain_fullk_stats_vs_pallas_kernel_and_oracle(n_fft, hop):
+    from acids_transforms_tpu.ops.pallas.spectral import fused_melspec_stats as jfs
+    from acids_transforms_tpu_torch.ops.windows import gaussian_dgt_window
+
+    x = make_audio(18, batch=2, n=7000)[:, 0]
+    w = gaussian_dgt_window(n_fft)
+    sp = pk.fused_melspec_stats(torch.as_tensor(x), n_fft, hop, "log1p", taps=None, window=w)
+    sj = jfs(jnp.asarray(x), n_fft, hop, jnp.asarray(t2n(w)), "log1p", interpret=True, taps=None)
+    xp = np.pad(x.astype(np.float64), [(0, 0), (n_fft // 2, n_fft // 2)], mode="reflect")
+    idx = np.arange(1 + x.shape[-1] // hop)[:, None] * hop + np.arange(n_fft)[None, :]
+    v = np.log1p(np.abs(np.fft.rfft(xp[:, idx] * gaussian64(n_fft), axis=-1)))
+    assert sp["count"] == v.size == int(sj["count"]) and isinstance(sp["count"], int)
+    for key, want in (("sum", v.sum()), ("sumsq", (v * v).sum()), ("max", v.max())):
+        assert abs(float(sp[key]) - want) <= 1e-5 * abs(want)
+        assert abs(float(sp[key]) - float(sj[key])) <= TOL * abs(want)
+    assert abs(float(sp["min"]) - v.min()) <= 1e-5 and abs(float(sj["min"]) - v.min()) <= TOL
+
+
+def test_fullk_serves_a_cosine_window_too():
+    """taps=None with a hann window is the same function as the factored path."""
+    x = make_audio(19, batch=1, n=5000)[:, 0]
+    _, pc = chains()
+    w, taps = pc[1].window, pc[1]._window_taps
+    a = pk.fused_melspec(torch.as_tensor(x), N_FFT, HOP, None, 0.0, 1.0, "log1p", taps=taps)
+    b = pk.fused_melspec(torch.as_tensor(x), N_FFT, HOP, None, 0.0, 1.0, "log1p", taps=None, window=w)
+    assert rel(t2n(b), t2n(a)) <= 1e-5
+    with pytest.raises(ValueError, match="window"):
+        pk.fused_melspec_stats(torch.as_tensor(x), N_FFT, HOP, taps=None, window=w[:100])

@@ -93,18 +93,23 @@ def test_stft_modes_and_unported_raise():
     pt = PT.STFT(n_fft=N_FFT, hop_length=HOP, device="cpu")
     assert pt.get_inversion_modes() == JT.STFT.get_inversion_modes()
     mag = torch.rand(1, 20, N_FFT // 2 + 1)
-    for mode in ("keep_input", "random", "sinebank", "pghi", "pghi_bidir", "pghi_gl", "pghi_exact"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt.invert(mag, inversion_mode=mode)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt.invert(mag, inversion_mode="sinebank")
+    for mode in ("keep_input", "random", "pghi", "pghi_bidir", "pghi_gl", "pghi_exact"):
+        y = pt.invert(mag, inversion_mode=mode)                # ported: they run
+        assert y.shape == (1, 19 * HOP) and torch.isfinite(y).all()
     with pytest.raises(ValueError):
         pt.invert(mag, inversion_mode="no_such_mode")
     with pytest.raises(ValueError):
         PT.STFT(inversion_mode="no_such_mode", device="cpu")
     pt.set_params(256, 64)
     assert pt.window.shape == (256,) and pt._window_taps is not None
-    for name in ("DGT", "MFCC", "RealtimeSTFT", "Polar", "MuLaw", "OverlapAdd"):
+    for name in ("RealtimeDGT", "MFCC", "RealtimeSTFT", "Polar", "MuLaw", "OverlapAdd"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(PT, name)
+    assert issubclass(PT.DGT, PT.STFT)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PT.DGT(n_fft=N_FFT, hop_length=HOP, device="cpu").realtime()
     with pytest.raises(AttributeError):
         PT.no_such_class
 
