@@ -2,8 +2,9 @@
 
 Composable, invertible audio transforms as ``torch.nn.Module``s, with the hot
 paths (fused log-mel / DGT-magnitude forward and its fit statistics for any
-window, the Griffin-Lim step, the PGHI recurrence and synthesis) as
-hand-written CUDA kernels for Hopper under ``csrc/``.  The port is built slice
+window, the two-channel Polar / PolarIF / Cartesian forward and its
+statistics, the Griffin-Lim steps for any window, the PGHI recurrence and
+synthesis) as hand-written CUDA kernels for Hopper under ``csrc/``.  The port is built slice
 by slice; what is not ported yet raises ``NotImplementedError`` naming its
 ROADMAP item.
 

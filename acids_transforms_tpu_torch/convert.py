@@ -9,9 +9,15 @@ JAX transforms' ``_tree_flatten`` returns, converted to numpy) and hands over
 plain arrays.
 
 Keys: ``"<child index>.<leaf>"`` with leaves ``window``, ``inv_window``
-(STFT and DGT: the gaussian window and its least-squares inverse window); ``mel_bank``, ``inverse_mel_bank``, ``norm.offset``, ``norm.scale``
-(Magnitude); ``offset``, ``scale`` (Normalize); and the flag
-``"<child index>.needs_scaling"`` (and ``"<i>.norm.needs_scaling"``), 0 or 1.
+(STFT and DGT: the gaussian window and its least-squares inverse window);
+``mel_bank``, ``inverse_mel_bank``, ``norm.offset``, ``norm.scale``
+(Magnitude; ``Real``, ``Imaginary``, ``Phase`` and ``IF`` have the ``norm.*``
+leaves only); ``offset``, ``scale`` (Normalize); the pairs ``Polar``,
+``PolarIF`` and ``Cartesian`` nest their two halves under ``magnitude.`` and
+``phase.`` (``"<i>.magnitude.mel_bank"``, ``"<i>.magnitude.norm.offset"``,
+``"<i>.phase.norm.scale"``, ...); and the flags ``"<i>.needs_scaling"`` and
+``"<i>.norm.needs_scaling"`` (``"<i>.phase.norm.needs_scaling"`` in a pair),
+0 or 1.  An unnormalized half (``Dummy``) has no leaves.
 """
 from __future__ import annotations
 

@@ -62,25 +62,28 @@ struct AnaWork {
     float* Bs;      // [2][kKC][kColTile]  staged cos / -sin basis
     float* Cre;     // [kMaxRows][kColTile] chunk DFT
     float* Cim;
-    float* Xre;     // [kRowGroup][kColTile] combined spectrum
-    float* Xim;
+    float* Xre;     // [x_rows][kColTile] combined spectrum (x_rows = kRowGroup
+    float* Xim;     //   unless the caller asks for more, see carve_ana)
     int* colbin;    // [kColTile]
     float* colsgn;  // [kColTile]
 };
 
-__host__ __device__ constexpr int ana_work_floats() {
-    return 2 * kKC * kColTile + 2 * kMaxRows * kColTile + 2 * kRowGroup * kColTile +
+// x_rows: rows of the combined spectrum the caller asks analysis_tile for
+// (n_frames <= x_rows <= kMaxRows); the representation kernels take one
+// halo frame more than kRowGroup.
+__host__ __device__ constexpr int ana_work_floats(int x_rows = kRowGroup) {
+    return 2 * kKC * kColTile + 2 * kMaxRows * kColTile + 2 * x_rows * kColTile +
            2 * kColTile;
 }
 
-__device__ __forceinline__ AnaWork carve_ana(float* base) {
+__device__ __forceinline__ AnaWork carve_ana(float* base, int x_rows = kRowGroup) {
     AnaWork w;
     w.Bs = base;
     w.Cre = w.Bs + 2 * kKC * kColTile;
     w.Cim = w.Cre + kMaxRows * kColTile;
     w.Xre = w.Cim + kMaxRows * kColTile;
-    w.Xim = w.Xre + kRowGroup * kColTile;
-    w.colbin = reinterpret_cast<int*>(w.Xim + kRowGroup * kColTile);
+    w.Xim = w.Xre + x_rows * kColTile;
+    w.colbin = reinterpret_cast<int*>(w.Xim + x_rows * kColTile);
     w.colsgn = reinterpret_cast<float*>(w.colbin + kColTile);
     return w;
 }

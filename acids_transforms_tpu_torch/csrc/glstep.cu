@@ -3,6 +3,8 @@
 // Replaces, from the JAX package's ops/pallas/glstep.py:
 //   gl_step_kernel, chain == 1  <- _gl_kernel_momentum        (via _gl_call, iters=1)
 //   gl_step_kernel, chain >= 2  <- _gl_kernel_momentum_chain  (via _gl_call, iters=k)
+//   gl_step_kernel, project     <- _gl_kernel                 (via gl_project): the
+//                                  consistency projection alone, no momentum
 //
 // One iteration: Y = taps_conv(mag * angles); D[c] = sum_j conj(tw_j) Y[c - j];
 // samples[c] = [Dre | Dim] @ [ICT; IST] / envelope[c]; C = samples @ [cos | -sin];
@@ -74,6 +76,7 @@ struct GlArgs {
     float* scratch;     // (n_blocks, 4, tile_t + 2 m (chain - 1), F) or null
     long long B;
     int T, F, hop, overlap, chain, tile_t, n_tiles;
+    int project;        // 1: write R only (tre, tim, nare, naim unused; chain 1)
     float mom;
     Taps taps;
 };
@@ -302,8 +305,9 @@ __global__ void __launch_bounds__(kThreads) gl_step_kernel(GlArgs a) {
                         ok[e] = idx < gn * useful && k < F && f >= 0 && f < T;
                         og[e] = ok[e] ? bofs + (size_t)f * F + k : 0;
                         os[e] = ok[e] ? (size_t)(f - scr_f0) * F + k : 0;
-                        tp_re[e] = !ok[e] ? 0.0f : (first ? a.tre[og[e]] : scr_rre[os[e]]);
-                        tp_im[e] = !ok[e] ? 0.0f : (first ? a.tim[og[e]] : scr_rim[os[e]]);
+                        const bool rd = ok[e] && !a.project;
+                        tp_re[e] = !rd ? 0.0f : (first ? a.tre[og[e]] : scr_rre[os[e]]);
+                        tp_im[e] = !rd ? 0.0f : (first ? a.tim[og[e]] : scr_rim[os[e]]);
                     }
 #pragma unroll
                     for (int e = 0; e < kEB; ++e) {
@@ -313,6 +317,11 @@ __global__ void __launch_bounds__(kThreads) gl_step_kernel(GlArgs a) {
                         int cu = idx - t * useful;
                         float r_re, r_im;
                         taps_at(w, a.taps, t, cu + P, &r_re, &r_im);
+                        if (a.project) {
+                            a.rre[og[e]] = r_re;
+                            a.rim[og[e]] = r_im;
+                            continue;
+                        }
                         float ure = r_re - a.mom * tp_re[e];
                         float uim = r_im - a.mom * tp_im[e];
                         float nrm = fmaxf(sqrtf(ure * ure + uim * uim), 1e-16f);
@@ -349,17 +358,17 @@ long long att_gl_smem_bytes(int tile_t, int chain, int overlap, int hop) {
     return (long long)att::gl_smem_bytes(tile_t, chain, overlap, hop);
 }
 
-// All spectrogram arrays (B, T, F) float32 contiguous; outputs must not alias
-// inputs.  Returns a cudaError_t.
-int att_gl_step(const float* mag, const float* are, const float* aim, const float* tre,
-                const float* tim, const float* env, long long B, int T, int F, int hop,
-                int overlap, const float* bcos, const float* bsin, const float* ict,
-                const float* ist, const float* twr, const float* twi, const float* taps_host,
-                int P, float mom, int chain, int tile_t, float* nare, float* naim, float* rre,
-                float* rim, float* scratch, void* stream) {
+static int gl_launch(const float* mag, const float* are, const float* aim, const float* tre,
+                     const float* tim, const float* env, long long B, int T, int F, int hop,
+                     int overlap, const float* bcos, const float* bsin, const float* ict,
+                     const float* ist, const float* twr, const float* twi,
+                     const float* taps_host, int P, float mom, int chain, int tile_t, int project,
+                     float* nare, float* naim, float* rre, float* rim, float* scratch,
+                     void* stream) {
     using namespace att;
     if (P < 0 || P >= kMaxTaps || overlap < 2 || kRowGroup + overlap - 1 > kMaxRows ||
-        hop % kKC != 0 || chain < 1 || tile_t < 1 || (chain >= 2 && scratch == nullptr)) {
+        hop % kKC != 0 || chain < 1 || tile_t < 1 || (chain >= 2 && scratch == nullptr) ||
+        (project && chain != 1)) {
         return (int)cudaErrorInvalidValue;
     }
     GlArgs a;
@@ -369,6 +378,7 @@ int att_gl_step(const float* mag, const float* are, const float* aim, const floa
     a.scratch = chain >= 2 ? scratch : nullptr;
     a.B = B; a.T = T; a.F = F; a.hop = hop; a.overlap = overlap; a.chain = chain;
     a.tile_t = tile_t; a.n_tiles = (T + tile_t - 1) / tile_t; a.mom = mom;
+    a.project = project;
     for (int i = 0; i < kMaxTaps; ++i) a.taps.c[i] = i <= P ? taps_host[i] : 0.0f;
     a.taps.P = P;
 
@@ -379,6 +389,31 @@ int att_gl_step(const float* mag, const float* are, const float* aim, const floa
     dim3 grid((unsigned)(B * a.n_tiles));
     gl_step_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
+}
+
+// All spectrogram arrays (B, T, F) float32 contiguous; outputs must not alias
+// inputs.  Returns a cudaError_t.
+int att_gl_step(const float* mag, const float* are, const float* aim, const float* tre,
+                const float* tim, const float* env, long long B, int T, int F, int hop,
+                int overlap, const float* bcos, const float* bsin, const float* ict,
+                const float* ist, const float* twr, const float* twi, const float* taps_host,
+                int P, float mom, int chain, int tile_t, float* nare, float* naim, float* rre,
+                float* rim, float* scratch, void* stream) {
+    return gl_launch(mag, are, aim, tre, tim, env, B, T, F, hop, overlap, bcos, bsin, ict, ist,
+                     twr, twi, taps_host, P, mom, chain, tile_t, 0, nare, naim, rre, rim, scratch,
+                     stream);
+}
+
+// Kernel I: the consistency projection R of mag * (are + i aim) alone, one
+// iteration, same arrays and rules as att_gl_step.  Returns a cudaError_t.
+int att_gl_project(const float* mag, const float* are, const float* aim, const float* env,
+                   long long B, int T, int F, int hop, int overlap, const float* bcos,
+                   const float* bsin, const float* ict, const float* ist, const float* twr,
+                   const float* twi, const float* taps_host, int P, int tile_t, float* rre,
+                   float* rim, void* stream) {
+    return gl_launch(mag, are, aim, nullptr, nullptr, env, B, T, F, hop, overlap, bcos, bsin, ict,
+                     ist, twr, twi, taps_host, P, 0.0f, 1, tile_t, 1, nullptr, nullptr, rre, rim,
+                     nullptr, stream);
 }
 
 }  // extern "C"

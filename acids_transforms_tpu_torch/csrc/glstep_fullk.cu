@@ -1,0 +1,235 @@
+// Full-K momentum Griffin-Lim step for any window, one kernel, for Hopper (sm_90a).
+//
+// Replaces, from the JAX package's ops/pallas/glstep.py:
+//   gl_fullk_kernel  <- _gl_kernel_fullk_momentum  (via _gl_fullk_call /
+//                       make_gl_momentum_step_fullk)
+//
+// One iteration for a window without cosine-sum taps (the DGT's gaussian):
+//   frames[t] = [mag * are | mag * aim][t] @ (windowed inverse real DFT)
+//   u         = overlap-add(frames) / envelope          (the un-trimmed signal)
+//   p         = u with its first and last n_fft / 2 samples replaced by the
+//               reflection of the trimmed signal u[n_fft/2, n_fft/2 + L)
+//   R[t]      = p[t hop, t hop + n_fft) @ (windowed DFT, cos | -sin)
+//   u = R - mom * tprev;  angles = u / max(|u|, 1e-16)
+// with L = (T - 1) hop.  That is the eager loop's ISTFT (centre trim) and
+// STFT (reflect padding) per iteration: the same boundary rule as the loop
+// it replaces in the chain's griffin_lim / pghi_gl.  The TPU kernel
+// re-frames the un-trimmed signal instead (its overlap-add tails): seeded by
+// PGHI that rule leaves the first and last frames far off the target
+// (ROADMAP Queue 3), so this port does not copy it.  Frames outside [0, T)
+// are zero; the envelope is the overlap-add of the squared window over the
+// true T frames, one where it falls below eps^2.
+//
+// What bounds it on this card: the function is bound by bytes (9 float
+// arrays of F values per frame) against an inverse and a forward FFT per
+// frame.  This design is not: it keeps the TPU kernel's two full-length
+// products, 2 * n_fft * F multiply-adds per frame for the synthesis and as
+// many for the analysis (2.1 M at n_fft 1024), about 230 flop per byte, so
+// its own ceiling is the card's fp32 FMA rate.
+//
+// Design: a block owns one batch row and tile_t output frames t0 ..  Their
+// padded samples are the hop chunks t0 - 1 .. t0 - 2 + R (R <= 8 kRPT; the
+// chunk before the tile holds the one sample the last frame's reflection
+// reads, and R >= overlap + 2 holds chunk `overlap`, the source of the first
+// frame's first sample), which need the frames from t0 - overlap on: those [re | im] rows
+// are built in shared memory (mag * angles, zero outside [0, T)) and the
+// synthesis is the overlap-add-folded product of synth_ola.cuh, written
+// straight into a shared-memory sample buffer.  The envelope division and
+// the two reflections (every sample a frame of the tile reads has its source
+// in the buffer) run in place there.  The analysis is then the full-K front
+// end of the forward kernels (dft_common.cuh:analysis_tile with the
+// contraction running to n_fft at row stride hop), whose work area takes the
+// place of the synthesis operands.  Blocks recompute their halo, so they are
+// independent; the time signal never leaves shared memory.  R and tile_t =
+// min(32, R - overlap) are chosen by the wrapper so that both phases fit
+// shared memory (R = 32 and 28 frames at n_fft 1024, hop 256; 15 and 7 at
+// 2048 / 256; 7 and 3 at 4096 / 1024).  An R that is no multiple of 8 leaves
+// the synthesis's last rows idle (synth_ola.cuh).
+//
+// Arithmetic is fp32 FMA with fp32 accumulation: no tensor cores yet.  What
+// keeps it from that ceiling: one block of 8 warps per SM (the [re | im]
+// rows of 35 frames take 148 KB), so latency is hidden by instruction-level
+// parallelism only, and the halo frames' synthesis is done again by the
+// neighbouring block.
+#include <math.h>
+
+#include "dft_common.cuh"
+#include "synth_ola.cuh"
+
+namespace att {
+
+struct GlFullkArgs {
+    const float* mag;   // (B, T, F)
+    const float* are;   // angles in
+    const float* aim;
+    const float* tre;   // previous projection in
+    const float* tim;
+    const float* env;   // (T + overlap - 1, hop), > 0
+    const float* syn;   // (overlap, Kp, hop) windowed inverse DFT rows [A; B; 0]
+    const float* wc;    // (n_fft, F) windowed analysis basis, cos
+    const float* ws;    //                                   -sin
+    float* nare;        // outputs (B, T, F)
+    float* naim;
+    float* rre;
+    float* rim;
+    int T, F, hop, overlap, Kp, rows, tile_t, n_tiles;
+    float mom;
+};
+
+__host__ __device__ inline size_t gl_fullk_smem_floats(int rows, int overlap, int hop, int Kp) {
+    size_t syn = (size_t)(rows + overlap - 1) * Kp + (size_t)kSynKC * kSynCols;
+    size_t ana = (size_t)ana_work_floats();
+    return (size_t)rows * hop + (syn > ana ? syn : ana);
+}
+
+template <int kRPT>
+__global__ void __launch_bounds__(kThreads) gl_fullk_kernel(GlFullkArgs a) {
+    static_assert(kSynThreads == kThreads, "one block shape for both phases");
+    extern __shared__ __align__(16) float smem[];
+    const int R = a.rows;  // hop chunks of samples a block computes, <= 8 kRPT
+    const int tid = threadIdx.x;
+    const int T = a.T, F = a.F, hop = a.hop, ov = a.overlap, Kp = a.Kp, m = a.overlap - 1;
+    float* samples = smem;                      // [R][hop]
+    float* S = samples + (size_t)R * hop;       // [R + m][Kp] frames' [re | im]
+    float* Bst = S + (size_t)(R + m) * Kp;      // [kSynKC][kSynCols]
+    AnaWork w = carve_ana(S);                   // the analysis reuses that area
+
+    const long long blk = blockIdx.x;
+    const long long b = blk / a.n_tiles;
+    const int t0 = (int)(blk - b * a.n_tiles) * a.tile_t;
+    const int c0 = t0 - 1;  // chunk of sample buffer row 0
+    const size_t bofs = (size_t)b * T * F;
+
+    // ---- synthesis: frames c0 - m .. c0 + R - 1 -> samples of chunks c0 .. c0 + R - 1
+    for (int q = 0; q < R + m; ++q) {
+        const int f = c0 - m + q;
+        float* row = S + (size_t)q * Kp;
+        if (f >= 0 && f < T) {
+            const size_t o = bofs + (size_t)f * F;
+            for (int k = tid; k < F; k += kThreads) {
+                const float mg = __ldg(a.mag + o + k);
+                row[k] = mg * __ldg(a.are + o + k);
+                row[F + k] = mg * __ldg(a.aim + o + k);
+            }
+            for (int k = 2 * F + tid; k < Kp; k += kThreads) row[k] = 0.0f;
+        } else {
+            for (int k = tid; k < Kp; k += kThreads) row[k] = 0.0f;
+        }
+    }
+    // synth_ola_tile starts with a barrier before it reads S
+    synth_ola_tile<kRPT>(S, Bst, a.syn, Kp, hop, ov, 0, R, samples);
+    __syncthreads();
+    for (int i = tid; i < R * hop; i += kThreads) {
+        const int c = c0 + i / hop;  // chunk of the un-trimmed signal
+        if (c >= 0 && c < T + m) samples[i] /= __ldg(a.env + (size_t)c * hop + (i - (i / hop) * hop));
+    }
+    __syncthreads();
+    // reflect padding of the trimmed signal u[half, half + L): the head
+    // takes u[n_fft - j], the tail u[2 (L + half - 1) - j]; the sources lie
+    // strictly inside the trimmed signal, so the pass can run in place
+    {
+        const long long half = (long long)ov * hop / 2;
+        const long long L = (long long)(T - 1) * hop;
+        const long long base = (long long)c0 * hop;
+        for (int i = tid; i < R * hop; i += kThreads) {
+            const long long j = base + i;
+            long long src;
+            if (j >= 0 && j < half) {
+                src = (long long)ov * hop - j;
+            } else if (j >= L + half) {
+                src = 2 * (L + half - 1) - j;
+            } else {
+                continue;
+            }
+            src -= base;
+            if (src >= 0 && src < (long long)R * hop) samples[i] = samples[src];
+        }
+    }
+    // analysis_tile starts with a barrier before it reads the samples
+
+    // ---- analysis: frames t0 .. t0 + tile_t - 1 of the samples, momentum update
+    const int n_ct = n_col_tiles(F, 0);
+    for (int ct = 0; ct < n_ct; ++ct) {
+        analysis_tile(samples + hop, a.tile_t, a.tile_t, hop, ov, F, ct, 0, a.wc, a.ws, nullptr,
+                      nullptr, w, ov * hop);
+        const int k0 = ct * kColTile;
+        for (int idx = tid; idx < a.tile_t * kColTile; idx += kThreads) {
+            const int t = idx / kColTile;
+            const int c = idx - t * kColTile;
+            const int k = k0 + c;
+            const int f = t0 + t;
+            if (k >= F || f >= T) continue;
+            const size_t o = bofs + (size_t)f * F + k;
+            const float r_re = w.Xre[idx];
+            const float r_im = w.Xim[idx];
+            const float ure = r_re - a.mom * __ldg(a.tre + o);
+            const float uim = r_im - a.mom * __ldg(a.tim + o);
+            const float nrm = fmaxf(sqrtf(ure * ure + uim * uim), 1e-16f);
+            a.rre[o] = r_re;
+            a.rim[o] = r_im;
+            a.nare[o] = ure / nrm;
+            a.naim[o] = uim / nrm;
+        }
+    }
+}
+
+template <typename K>
+static cudaError_t gl_fullk_allow_smem(K kernel, size_t bytes) {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace att
+
+extern "C" {
+
+// Shared memory of one block computing `rows` chunks (overlap + 2 <= rows <= 32).
+long long att_gl_fullk_smem_bytes(int rows, int overlap, int hop, int Kp) {
+    return (long long)(att::gl_fullk_smem_floats(rows, overlap, hop, Kp) * sizeof(float));
+}
+
+// Kernel J.  Spectrogram arrays (B, T, F) float32 contiguous, outputs not
+// aliasing inputs; env (T + overlap - 1, hop); syn (overlap, Kp, hop) with Kp
+// a multiple of 32, Kp >= 2F; wc / ws (overlap * hop, F).  rows chunks per
+// block (overlap + 2 <= rows <= 32), tile_t <= min(32, rows - overlap)
+// frames; hop a multiple
+// of 32; (T - 1) hop > overlap * hop / 2 (one reflection covers the pad).
+// Returns a cudaError_t.
+int att_gl_fullk_step(const float* mag, const float* are, const float* aim, const float* tre,
+                      const float* tim, const float* env, const float* syn, const float* wc,
+                      const float* ws, long long B, int T, int F, int hop, int overlap, int Kp,
+                      int rows, int tile_t, float mom, float* nare, float* naim, float* rre,
+                      float* rim, void* stream) {
+    using namespace att;
+    if (B < 1 || T < 1 || overlap < 2 || hop % kKC != 0 || Kp % kSynKC != 0 || Kp < 2 * F ||
+        tile_t < 1 || tile_t > kRowGroup || tile_t + overlap > rows ||
+        (long long)(T - 1) * hop <= (long long)overlap * hop / 2 ||
+        rows < overlap + 2 || rows > 32) {
+        return (int)cudaErrorInvalidValue;
+    }
+    GlFullkArgs a;
+    a.mag = mag; a.are = are; a.aim = aim; a.tre = tre; a.tim = tim; a.env = env;
+    a.syn = syn; a.wc = wc; a.ws = ws;
+    a.nare = nare; a.naim = naim; a.rre = rre; a.rim = rim;
+    a.T = T; a.F = F; a.hop = hop; a.overlap = overlap; a.Kp = Kp; a.rows = rows; a.tile_t = tile_t;
+    a.n_tiles = (T + tile_t - 1) / tile_t;
+    a.mom = mom;
+    const size_t smem = gl_fullk_smem_floats(rows, overlap, hop, Kp) * sizeof(float);
+    dim3 grid((unsigned)(B * a.n_tiles));
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
+#define ATT_LAUNCH_GLFK(RPT)                                                \
+    do {                                                                    \
+        err = gl_fullk_allow_smem(gl_fullk_kernel<RPT>, smem);              \
+        if (err != cudaSuccess) return (int)err;                            \
+        gl_fullk_kernel<RPT><<<grid, kThreads, smem, s>>>(a);               \
+    } while (0)
+    const int rpt = (rows + 7) / 8;
+    if (rpt == 4) ATT_LAUNCH_GLFK(4);
+    else if (rpt == 3) ATT_LAUNCH_GLFK(3);
+    else if (rpt == 2) ATT_LAUNCH_GLFK(2);
+    else ATT_LAUNCH_GLFK(1);
+#undef ATT_LAUNCH_GLFK
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -5,6 +5,12 @@
 //   melspec_stats_kernel<.., false>    <- _stats_kernel_factored    (via _stats_call / fused_melspec_stats)
 //   melspec_forward_kernel<.., true>   <- _forward_kernel  (full-K: any window, taps=None)
 //   melspec_stats_kernel<.., true>     <- _stats_kernel    (full-K)
+//   repr_forward_kernel<.., false> <- _repr_kernel_factored (via _repr_call /
+//                                     fused_spectral_repr), epilogue _repr_channels
+//   repr_forward_kernel<.., true>  <- _repr_kernel          (full-K)
+//   repr_stats_kernel<.., false>   <- _repr_stats_kernel_factored (via
+//                                     _repr_stats_call / fused_repr_stats)
+//   repr_stats_kernel<.., true>    <- _repr_stats_kernel    (full-K)
 //   stats_reduce_kernel     <- the accumulation the TPU kernel carried across its
 //                              sequential grid (_stats_update)
 //
@@ -41,6 +47,23 @@
 // kernel reduces them in a fixed order in double precision, so the result
 // is deterministic (no float atomics).
 //
+// The representation kernels (Polar, PolarIF, Cartesian: two channels from
+// one DFT) run the same two front ends and differ only after the complex
+// spectrum of a column tile is in shared memory.  Channel 1 (|X|, or Re) and
+// channel 2 (the atan2 phase, the instantaneous frequency, or Im) are formed
+// per bin there; channel 1 goes to the (tile_t, F) shared buffer when the mel
+// product needs whole rows, channel 2 straight to device memory, coalesced
+// along the bins.  The IF needs the previous frame's phase: the TPU kernel
+// carried the last phase row of a tile across its sequential grid, here a
+// block recomputes one halo frame before its tile (the rows carry one leading
+// zero chunk so that tile 0 has one too; frame 0 passes its raw angle
+// through, so the halo of tile 0 is never read).  The nyquist bin's
+// imaginary part is pinned to 0, so its angle is exactly 0 or pi as the TPU
+// kernel sets it (the full-K product leaves a rounding-size part there,
+// which would flip pi to -pi).  The fit statistics of both channels are
+// reduced per column tile from shared memory, with channel 1 the non-mel
+// contrasted magnitude (what Magnitude.fit fits on).
+//
 // Arithmetic is fp32 FMA with fp32 accumulation: no tensor cores yet.  What
 // keeps it from that ceiling: one block of 8 warps per SM (the magnitudes take
 // 66 KB of shared memory at F = 513), so shared-memory latency is hidden by
@@ -53,6 +76,26 @@
 
 namespace att {
 
+// n_rows hop chunks from row row0 of the prepared rows into xs (int16 PCM
+// converted here, x * 2^-15, exact), then a barrier.
+template <bool kInt16>
+__device__ void load_rows(const void* __restrict__ x_rows, size_t row0, int n_rows, int hop,
+                          float* xs) {
+    const size_t n_el = (size_t)n_rows * hop;
+    if (kInt16) {
+        const int16_t* src = reinterpret_cast<const int16_t*>(x_rows) + row0 * hop;
+        for (size_t i = threadIdx.x; i < n_el; i += kThreads) {
+            xs[i] = (float)src[i] * 3.0517578125e-05f;  // 2^-15, exact
+        }
+    } else {
+        const float* src = reinterpret_cast<const float*>(x_rows) + row0 * hop;
+        for (size_t i = threadIdx.x; i < n_el; i += kThreads) {
+            xs[i] = src[i];
+        }
+    }
+    __syncthreads();
+}
+
 // Magnitudes (or powers) of one block's tile_t frames into mag_s[t * F + k].
 template <bool kInt16, bool kFullK>
 __device__ void block_magnitudes(const void* __restrict__ x_rows, long long b, int tile,
@@ -62,20 +105,7 @@ __device__ void block_magnitudes(const void* __restrict__ x_rows, long long b, i
                                  float* mag_s, AnaWork w) {
     const int tid = threadIdx.x;
     const int n_rows = tile_t + overlap - 1;
-    const size_t row0 = (size_t)b * n_rows_total + (size_t)tile * tile_t;
-    const size_t n_el = (size_t)n_rows * hop;
-    if (kInt16) {
-        const int16_t* src = reinterpret_cast<const int16_t*>(x_rows) + row0 * hop;
-        for (size_t i = tid; i < n_el; i += kThreads) {
-            xs[i] = (float)src[i] * 3.0517578125e-05f;  // 2^-15, exact
-        }
-    } else {
-        const float* src = reinterpret_cast<const float*>(x_rows) + row0 * hop;
-        for (size_t i = tid; i < n_el; i += kThreads) {
-            xs[i] = src[i];
-        }
-    }
-    __syncthreads();
+    load_rows<kInt16>(x_rows, (size_t)b * n_rows_total + (size_t)tile * tile_t, n_rows, hop, xs);
 
     const int P = taps.P;
     const int useful = kColTile - 2 * P;
@@ -224,26 +254,272 @@ melspec_stats_kernel(const void* __restrict__ x_rows, int n_tiles, int tile_t,
     }
 }
 
-// partials (n_blocks, 4, F) float -> stats (4, F) double, in a fixed order:
-// a block owns 32 bins of one statistic, its 8 warps each fold every 8th
+// ---------------------------------------------------------------------------
+// Two-channel representations (kernels G and H).
+
+constexpr int kSecondPhase = 0;  // Polar:     ch1 |X| (mel, contrast), ch2 angle
+constexpr int kSecondIF = 1;     // PolarIF:   ch1 as Polar, ch2 frame-local IF
+constexpr int kSecondImag = 2;   // Cartesian: ch1 Re, ch2 Im
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kTwoPi = 6.28318530717958647692f;
+constexpr float kInvPi = 0.31830988618379067154f;
+
+struct ReprArgs {
+    const void* x_rows;   // (B, n_rows_total, hop): one leading zero chunk, then the padded signal
+    int n_tiles, tile_t, n_rows_total, hop, overlap, F, T;
+    const float* bcos;    // factored: (hop, F) chunk basis; full-K: (n_fft, F) windowed basis
+    const float* bsin;
+    const float* twr;     // factored only: (overlap, F) twiddles
+    const float* twi;
+    Taps taps;            // full-K: unit taps
+    int second;           // kSecondPhase / kSecondIF / kSecondImag
+    int weighted;         // IF: parabolic frame window of the global frame index
+    int contrast;         // ch1: 0 none, 1 log1p (never for kSecondImag)
+    const float* mel_bank;  // (F, F) or null
+    const int* mel_lo;
+    const int* mel_hi;
+    const float* aff;     // [off1, scale1, off2, scale2]
+    float* out1;          // (B, T, F)
+    float* out2;          // (B, T, F)
+    float* partials;      // statistics: (n_blocks, 8, F)
+};
+
+// The unwrapped difference of two consecutive phases is their principal
+// difference (unwrap's correction, evaluated frame-locally): |d| < pi as is,
+// else ((d + pi) mod 2 pi) - pi, with -pi of a positive d taken as pi.
+__device__ __forceinline__ float wrap_diff(float d) {
+    if (fabsf(d) < kPi) return d;
+    float m = fmodf(d + kPi, kTwoPi);
+    if (m != 0.0f && m < 0.0f) m += kTwoPi;
+    m -= kPi;
+    return (m == -kPi && d > 0.0f) ? kPi : m;
+}
+
+// IF row value of global frame f from its phase and the previous frame's:
+// frame 0 passes its angle through, the others take half the principal
+// difference, every row but the last is divided by pi, and `weighted`
+// applies the parabolic window (1.5 T / (T^2 - 1)) (1 - ((f - (T/2 - 1)) /
+// (T/2))^2), evaluated in double and rounded once (near its zeros a float
+// evaluation cancels, and any two float orders of it differ there).
+__device__ __forceinline__ float if_value(float ph, float ph_prev, int f, int T, bool weighted) {
+    float v = f == 0 ? ph : wrap_diff(ph - ph_prev) * 0.5f;
+    if (f != T - 1) v *= kInvPi;
+    if (weighted) {
+        const double half = T / 2.0;
+        const double u = ((double)f - (half - 1.0)) / half;
+        v *= (float)(1.5 * T / ((double)T * T - 1.0) * (1.0 - u * u));
+    }
+    return v;
+}
+
+// Front end of one representation block: its rows into xs, and for each
+// column tile `per_tile(k0, useful, n_frames)` with the spectrum in w.  With
+// the IF the block computes n_frames = tile_t + 1 frames starting one before
+// its tile (row 0 is the halo frame); otherwise its tile_t frames.
+template <bool kInt16, bool kFullK, typename PerTile>
+__device__ void repr_front(const ReprArgs& a, long long b, int tile, int halo, float* xs,
+                           AnaWork w, PerTile per_tile) {
+    const int n_frames = a.tile_t + halo;
+    const int n_rows = n_frames + a.overlap - 1;
+    load_rows<kInt16>(a.x_rows, (size_t)b * a.n_rows_total + (size_t)tile * a.tile_t + (1 - halo),
+                      n_rows, a.hop, xs);
+    const int P = a.taps.P;
+    const int useful = kColTile - 2 * P;
+    const int n_ct = n_col_tiles(a.F, P);
+    for (int ct = 0; ct < n_ct; ++ct) {
+        if (kFullK) {
+            analysis_tile(xs, n_frames, n_frames, a.hop, a.overlap, a.F, ct, P, a.bcos, a.bsin,
+                          a.twr, a.twi, w, a.overlap * a.hop);
+        } else {
+            analysis_tile(xs, n_rows, n_frames, a.hop, a.overlap, a.F, ct, P, a.bcos, a.bsin,
+                          a.twr, a.twi, w);
+        }
+        per_tile(ct * useful, useful, n_frames);
+    }
+}
+
+// (re, im) of frame row t, tile column cu + P, bin k: the taps conv, with the
+// nyquist bin's imaginary part pinned to 0.
+__device__ __forceinline__ void repr_bin(const AnaWork& w, const Taps& taps, int t, int cu, int k,
+                                         int F, float* re, float* im) {
+    taps_at(w, taps, t, cu + taps.P, re, im);
+    if (k == F - 1) *im = 0.0f;
+}
+
+__device__ __forceinline__ float repr_angle(float re, float im, int k, int F) {
+    // the nyquist bin is exactly real: its angle is 0 or pi.  A zero
+    // imaginary part of either sign counts as +0 (the DC bin's is a signed
+    // zero whose sign is an accident of the order of additions), so a
+    // negative real axis is always +pi, as the TPU kernel's atan2 has it.
+    if (k == F - 1) return re < 0.0f ? kPi : 0.0f;
+    return atan2f(im == 0.0f ? 0.0f : im, re);
+}
+
+template <bool kInt16, bool kFullK>
+__global__ void __launch_bounds__(kThreads) repr_forward_kernel(ReprArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    const int halo = a.second == kSecondIF ? 1 : 0;
+    const int F = a.F, T = a.T;
+    float* xs = smem;
+    float* mag_s = xs + (size_t)(a.tile_t + a.overlap) * a.hop;
+    AnaWork w = carve_ana(mag_s + (size_t)a.tile_t * F, a.tile_t + 1);
+    float* ph_s = w.Cre;  // phases of a column tile, free once X is combined
+
+    const long long blk = blockIdx.x;
+    const long long b = blk / a.n_tiles;
+    const int tile = (int)(blk - b * a.n_tiles);
+    const int t_base = tile * a.tile_t;
+    const float off1 = a.aff[0], s1 = a.aff[1], off2 = a.aff[2], s2 = a.aff[3];
+    const size_t row_b = (size_t)b * T;
+
+    repr_front<kInt16, kFullK>(a, b, tile, halo, xs, w, [&](int k0, int useful, int n_frames) {
+        for (int idx = threadIdx.x; idx < n_frames * useful; idx += kThreads) {
+            const int t = idx / useful;
+            const int cu = idx - t * useful;
+            const int k = k0 + cu;
+            const int f = t_base + t - halo;  // global frame of row t
+            if (k >= F) continue;
+            float re, im;
+            repr_bin(w, a.taps, t, cu, k, F, &re, &im);
+            if (a.second == kSecondImag) {
+                if (f < T) {
+                    a.out1[(row_b + f) * F + k] = (re - off1) / s1;
+                    a.out2[(row_b + f) * F + k] = (im - off2) / s2;
+                }
+                continue;
+            }
+            if (t >= halo) mag_s[(t - halo) * F + k] = sqrtf(re * re + im * im);
+            const float ph = repr_angle(re, im, k, F);
+            if (a.second == kSecondPhase) {
+                if (f < T) a.out2[(row_b + f) * F + k] = (ph - off2) / s2;
+            } else {
+                ph_s[t * kColTile + cu] = ph;
+            }
+        }
+        if (a.second != kSecondIF) return;
+        __syncthreads();
+        for (int idx = threadIdx.x; idx < a.tile_t * useful; idx += kThreads) {
+            const int t = idx / useful;  // output row: halo row t + 1
+            const int cu = idx - t * useful;
+            const int k = k0 + cu;
+            const int f = t_base + t;
+            if (k >= F || f >= T) continue;
+            const float v = if_value(ph_s[(t + 1) * kColTile + cu], ph_s[t * kColTile + cu], f, T,
+                                     a.weighted != 0);
+            a.out2[(row_b + f) * F + k] = (v - off2) / s2;
+        }
+        // analysis_tile begins with a barrier before the work area is reused
+    });
+    if (a.second == kSecondImag) return;
+    __syncthreads();
+    switch (a.tile_t) {
+        case 32:
+            emit_tile<32, false>(mag_s, b, t_base, F, T, a.contrast, a.mel_bank, a.mel_lo, a.mel_hi,
+                                 F, off1, s1, a.out1);
+            break;
+        case 16:
+            emit_tile<16, false>(mag_s, b, t_base, F, T, a.contrast, a.mel_bank, a.mel_lo, a.mel_hi,
+                                 F, off1, s1, a.out1);
+            break;
+        default:
+            emit_tile<8, false>(mag_s, b, t_base, F, T, a.contrast, a.mel_bank, a.mel_lo, a.mel_hi,
+                                F, off1, s1, a.out1);
+    }
+}
+
+template <bool kInt16, bool kFullK>
+__global__ void __launch_bounds__(kThreads) repr_stats_kernel(ReprArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    const int halo = a.second == kSecondIF ? 1 : 0;
+    const int F = a.F, T = a.T;
+    float* xs = smem;
+    AnaWork w = carve_ana(xs + (size_t)(a.tile_t + a.overlap) * a.hop, a.tile_t + 1);
+    // per column tile, rows as the frame rows: ch1 in Cim; ch2 in Cre (the
+    // phase, or Im), for the IF in Xre once X has been read
+    float* c1_s = w.Cim;
+    float* ph_s = w.Cre;
+
+    const long long blk = blockIdx.x;
+    const long long b = blk / a.n_tiles;
+    const int tile = (int)(blk - b * a.n_tiles);
+    const int t_base = tile * a.tile_t;
+    const int t_valid = min(a.tile_t, T - t_base);  // frames past T are tile padding
+    float* dst = a.partials + (size_t)blk * 8 * F;
+
+    repr_front<kInt16, kFullK>(a, b, tile, halo, xs, w, [&](int k0, int useful, int n_frames) {
+        for (int idx = threadIdx.x; idx < n_frames * useful; idx += kThreads) {
+            const int t = idx / useful;
+            const int cu = idx - t * useful;
+            const int k = k0 + cu;
+            if (k >= F) continue;
+            float re, im;
+            repr_bin(w, a.taps, t, cu, k, F, &re, &im);
+            if (a.second == kSecondImag) {
+                c1_s[t * kColTile + cu] = re;
+                ph_s[t * kColTile + cu] = im;
+            } else {
+                c1_s[t * kColTile + cu] = contrast_of(sqrtf(re * re + im * im), a.contrast);
+                ph_s[t * kColTile + cu] = repr_angle(re, im, k, F);
+            }
+        }
+        __syncthreads();
+        float* c2_s = ph_s;
+        if (a.second == kSecondIF) {
+            c2_s = w.Xre;
+            for (int idx = threadIdx.x; idx < t_valid * useful; idx += kThreads) {
+                const int t = idx / useful;
+                const int cu = idx - t * useful;
+                c2_s[(t + 1) * kColTile + cu] =
+                    if_value(ph_s[(t + 1) * kColTile + cu], ph_s[t * kColTile + cu], t_base + t, T,
+                             a.weighted != 0);
+            }
+            __syncthreads();
+        }
+        // threads 0..127 fold channel 1 of a column, 128..255 channel 2
+        const int c = threadIdx.x & (kColTile - 1);
+        const int ch = threadIdx.x / kColTile;
+        const int k = k0 + c;
+        if (c < useful && k < F) {
+            const float* col = (ch == 0 ? c1_s : c2_s) + halo * kColTile + c;
+            float s = 0.0f, ss = 0.0f, mn = INFINITY, mx = -INFINITY;
+            for (int t = 0; t < t_valid; ++t) {
+                const float v = col[t * kColTile];
+                s += v;
+                ss = fmaf(v, v, ss);
+                mn = fminf(mn, v);
+                mx = fmaxf(mx, v);
+            }
+            float* d = dst + (size_t)ch * 4 * F;
+            d[k] = s;
+            d[F + k] = ss;
+            d[2 * F + k] = mn;
+            d[3 * F + k] = mx;
+        }
+    });
+}
+
+// partials (n_blocks, n_stats, F) float -> stats (n_stats, F) double, in a
+// fixed order: statistic `stat` folds as sum, sum, min, max by stat % 4.  A
+// block owns 32 bins of one statistic, its 8 warps each fold every 8th
 // partial, and warp 0 folds the 8 results in order.
 __global__ void __launch_bounds__(kThreads)
-stats_reduce_kernel(const float* __restrict__ partials, long long n_blocks, int F,
+stats_reduce_kernel(const float* __restrict__ partials, long long n_blocks, int F, int n_stats,
                     double* __restrict__ stats) {
     __shared__ double sh[8][32];
     const int lane = threadIdx.x & 31;
     const int slice = threadIdx.x >> 5;
     const int k = blockIdx.x * 32 + lane;
     const int stat = blockIdx.y;
-    const double init = stat == 2 ? (double)INFINITY : (stat == 3 ? -(double)INFINITY : 0.0);
-    auto fold = [stat](double acc, double v) {
-        return stat < 2 ? acc + v : (stat == 2 ? fmin(acc, v) : fmax(acc, v));
+    const int kind = stat % 4;
+    const double init = kind == 2 ? (double)INFINITY : (kind == 3 ? -(double)INFINITY : 0.0);
+    auto fold = [kind](double acc, double v) {
+        return kind < 2 ? acc + v : (kind == 2 ? fmin(acc, v) : fmax(acc, v));
     };
     double acc = init;
     if (k < F) {
 #pragma unroll 4
         for (long long blk = slice; blk < n_blocks; blk += 8) {
-            acc = fold(acc, (double)partials[((size_t)blk * 4 + stat) * F + k]);
+            acc = fold(acc, (double)partials[((size_t)blk * n_stats + stat) * F + k]);
         }
     }
     sh[slice][lane] = acc;
@@ -258,6 +534,14 @@ stats_reduce_kernel(const float* __restrict__ partials, long long n_blocks, int 
 static size_t forward_smem_bytes(int tile_t, int hop, int overlap, int F) {
     size_t floats = (size_t)(tile_t + overlap - 1) * hop + (size_t)tile_t * F +
                     ana_work_floats();
+    return floats * sizeof(float);
+}
+
+// The representation kernels hold one chunk (the halo frame's) and one
+// spectrum row more; the statistics kernel has no channel-1 rows.
+static size_t repr_smem_bytes(int tile_t, int hop, int overlap, int F, bool stats) {
+    size_t floats = (size_t)(tile_t + overlap) * hop + (stats ? 0 : (size_t)tile_t * F) +
+                    ana_work_floats(tile_t + 1);
     return floats * sizeof(float);
 }
 
@@ -373,7 +657,77 @@ int att_melspec_stats(const void* x_rows, int x_int16, long long B, int n_tiles,
 #undef ATT_LAUNCH_STATS
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    stats_reduce_kernel<<<dim3((F + 31) / 32, 4), kThreads, 0, s>>>(partials, B * n_tiles, F, stats);
+    stats_reduce_kernel<<<dim3((F + 31) / 32, 4), kThreads, 0, s>>>(partials, B * n_tiles, F, 4,
+                                                                     stats);
+    return (int)cudaGetLastError();
+}
+
+long long att_repr_smem_bytes(int tile_t, int hop, int overlap, int F, int stats) {
+    return (long long)att::repr_smem_bytes(tile_t, hop, overlap, F, stats != 0);
+}
+
+// Kernels G (stats = 0) and H (stats = 1).  x_rows: (B, n_rows_total, hop)
+// float32 or int16 with one leading zero chunk, n_rows_total >= n_tiles *
+// tile_t + overlap; tile_t one of 32, 16, 8.  P >= 0: factored front end
+// (chunk basis, twiddles, taps); P < 0: full-K (window-folded basis).
+// second: 0 phase, 1 IF, 2 imag.  G: aff = [off1, scale1, off2, scale2] on
+// the device, out1 / out2: (B, T, F) float32; mel_bank (F, F) or null.  H:
+// partials (B * n_tiles, 8, F) float32 scratch, stats (8, F) float64 out
+// (rows: sum, sumsq, min, max of channel 1, then of channel 2).  Returns a
+// cudaError_t.
+int att_repr(int stats_mode, const void* x_rows, int x_int16, long long B, int n_tiles, int tile_t,
+             int n_rows_total, int hop, int overlap, int F, int T, const float* bcos,
+             const float* bsin, const float* twr, const float* twi, const float* taps_host, int P,
+             int second, int weighted, int contrast, const float* mel_bank, const int* mel_lo,
+             const int* mel_hi, const float* aff, float* out1, float* out2, float* partials,
+             double* stats, void* stream) {
+    using namespace att;
+    const bool fullk = P < 0;
+    if (P >= kMaxTaps || overlap < 1 || tile_t + overlap > kMaxRows ||
+        (tile_t != 32 && tile_t != 16 && tile_t != 8) || hop % kKC != 0 || second < 0 ||
+        second > 2) {
+        return (int)cudaErrorInvalidValue;
+    }
+    ReprArgs a;
+    a.x_rows = x_rows;
+    a.n_tiles = n_tiles; a.tile_t = tile_t; a.n_rows_total = n_rows_total; a.hop = hop;
+    a.overlap = overlap; a.F = F; a.T = T;
+    a.bcos = bcos; a.bsin = bsin; a.twr = twr; a.twi = twi;
+    a.taps = fullk ? unit_taps() : make_taps(taps_host, P);
+    a.second = second; a.weighted = weighted; a.contrast = contrast;
+    a.mel_bank = mel_bank; a.mel_lo = mel_lo; a.mel_hi = mel_hi; a.aff = aff;
+    a.out1 = out1; a.out2 = out2; a.partials = partials;
+    const size_t smem = repr_smem_bytes(tile_t, hop, overlap, F, stats_mode != 0);
+    dim3 grid((unsigned)(B * n_tiles));
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
+#define ATT_LAUNCH_REPR(KERNEL, I16, FK)                                                   \
+    do {                                                                                   \
+        err = allow_smem(KERNEL<I16, FK>, smem);                                           \
+        if (err != cudaSuccess) return (int)err;                                           \
+        KERNEL<I16, FK><<<grid, kThreads, smem, s>>>(a);                                   \
+    } while (0)
+#define ATT_LAUNCH_REPR_ALL(KERNEL)                                                        \
+    do {                                                                                   \
+        if (x_int16) {                                                                     \
+            if (fullk) ATT_LAUNCH_REPR(KERNEL, true, true);                                \
+            else ATT_LAUNCH_REPR(KERNEL, true, false);                                     \
+        } else {                                                                           \
+            if (fullk) ATT_LAUNCH_REPR(KERNEL, false, true);                               \
+            else ATT_LAUNCH_REPR(KERNEL, false, false);                                    \
+        }                                                                                  \
+    } while (0)
+    if (stats_mode) {
+        ATT_LAUNCH_REPR_ALL(repr_stats_kernel);
+    } else {
+        ATT_LAUNCH_REPR_ALL(repr_forward_kernel);
+    }
+#undef ATT_LAUNCH_REPR_ALL
+#undef ATT_LAUNCH_REPR
+    err = cudaGetLastError();
+    if (err != cudaSuccess || !stats_mode) return (int)err;
+    stats_reduce_kernel<<<dim3((F + 31) / 32, 8), kThreads, 0, s>>>(partials, B * n_tiles, F, 8,
+                                                                     stats);
     return (int)cudaGetLastError();
 }
 

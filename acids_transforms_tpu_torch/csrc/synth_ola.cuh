@@ -30,7 +30,8 @@ constexpr int kSynCols = 256;   // sample columns per pass
 constexpr int kSynKC = 32;      // contraction rows staged at a time
 
 // S: (R + overlap - 1) rows of Kp floats in shared memory, row q = frame
-// j0 - (overlap - 1) + q.  Bst: kSynKC * kSynCols floats of shared memory.
+// j0 - (overlap - 1) + q, or only the rows up to the last chunk's when
+// n_chunks - j0 < R.  Bst: kSynKC * kSynCols floats of shared memory.
 // basis: (overlap, Kp, hop) in device memory.  out_row: the clip's signal,
 // n_chunks * hop floats; chunks [j0, j0 + R) below n_chunks are written.
 template <int kRPT>
@@ -41,6 +42,15 @@ __device__ void synth_ola_tile(const float* S, float* Bst, const float* __restri
     const int tx = tid & 31;
     const int ty = tid >> 5;
     constexpr int kVec = kSynKC * kSynCols / 4 / kSynThreads;  // float4 a thread stages
+    // a thread's output chunks past the block's last one (n_chunks - j0) read
+    // that chunk's frames instead: their sums are never stored, and S need
+    // hold no rows beyond the last chunk's
+    int rofs[kRPT];
+    {
+        const int last = max(0, min(8 * kRPT, n_chunks - j0) - 1);
+#pragma unroll
+        for (int r = 0; r < kRPT; ++r) rofs[r] = min(ty * kRPT + r, last) * Kp;
+    }
     for (int c0 = 0; c0 < hop; c0 += kSynCols) {
         float acc[kRPT][8];
 #pragma unroll
@@ -78,13 +88,13 @@ __device__ void synth_ola_tile(const float* S, float* Bst, const float* __restri
             __syncthreads();
             if (step + 1 < n_steps) fetch(step + 1);
             // output chunk ty * kRPT + r reads frame row (..) + overlap - 1 - i
-            const float* Srow = S + (size_t)(ty * kRPT + overlap - 1 - i) * Kp + k0;
+            const float* Srow = S + (size_t)(overlap - 1 - i) * Kp + k0;
 #pragma unroll 2
             for (int kk = 0; kk < kSynKC; kk += 4) {
                 float4 a[kRPT];
 #pragma unroll
                 for (int r = 0; r < kRPT; ++r) {
-                    a[r] = *reinterpret_cast<const float4*>(Srow + (size_t)r * Kp + kk);
+                    a[r] = *reinterpret_cast<const float4*>(Srow + rofs[r] + kk);
                 }
 #pragma unroll
                 for (int u = 0; u < 4; ++u) {

@@ -1,35 +1,38 @@
 """Chain fusion: dispatch recognized transform chains to a fused forward / fit
-(twin of the JAX ``fuse.py``, melspec pattern).
+(twin of the JAX ``fuse.py``, melspec and representation patterns).
 
 ``fuse_forward(chain)`` inspects a ``ComposeAudioTransform`` and, when the
-structure matches the hot mel-spectrogram pattern
+structure matches one of the patterns
 
-    [Mono?] + (STFT | DGT) + Magnitude
+    [Mono?] + (STFT | DGT) + Magnitude                      (melspec)
+    [Mono?] + (STFT | DGT) + (Polar | PolarIF | Cartesian)  (representation)
 
 returns a callable that computes the whole pipeline without materializing the
-complex spectrogram.  Any chain that does not match falls back to
-``chain.forward``.
+complex spectrogram.  The representation pattern computes both channels from
+one DFT; it declines ``Phase(unwrap=True)`` and an IF stencil other than
+``forward`` (both need the whole clip's unwrapped phase) and a front-counted
+``stack``.  Any chain that does not match falls back to ``chain.forward``.
 
 Backends:
 
-- ``"kernel"``: the hand-written CUDA kernel (``ops/cuda/spectral.py``):
-  DFT + window + mel + contrast + normalizer in one pass, through the
-  chunk-factored front end for a cosine-sum window and the full-K front end
-  for any other (the DGT's gaussian).  Needs ``hop | n_fft`` and a non-log
-  contrast (``log``/``log10`` amplify the magnitude error without bound near
-  silent bins).  On a CPU tensor the same wrapper runs the kernel's plain
-  PyTorch version.
+- ``"kernel"``: the hand-written CUDA kernels (``ops/cuda/spectral.py``):
+  DFT + window + mel + contrast + normalizer in one pass (the representation
+  pattern: both channels and both normalizers), through the chunk-factored
+  front end for a cosine-sum window and the full-K front end for any other
+  (the DGT's gaussian).  Needs ``hop | n_fft`` and a non-log contrast
+  (``log``/``log10`` amplify the magnitude error without bound near silent
+  bins).  On a CPU tensor the same wrapper runs the kernel's plain PyTorch
+  version.
 - ``"eager"``: the fused-GEMM torch formulation (windowed frames against the
-  DFT matrices, magnitude, mel, contrast and normalizer on the real/imaginary
-  parts).
+  DFT matrices, then the channels' epilogues on the real/imaginary parts).
 - ``"auto"`` (default): per call, the kernel when the input lies on a CUDA
   device and the chain is eligible, else the eager formulation.
 
 ``fuse_fit`` is the same story for the *fit* pass: the kernel's statistics
-epilogue reduces the normalization statistics without writing the spectrogram.
+epilogue reduces the normalization statistics (of both channels, for the
+representation pattern) without writing the spectrogram.
 
-Not ported yet (ROADMAP Queue 1 items 7, 8, 12): the MFCC and stacked
-representation patterns and ``mesh=``.
+Not ported yet (ROADMAP Queue 1 items 7, 12): the MFCC pattern and ``mesh=``.
 """
 from __future__ import annotations
 
@@ -41,13 +44,15 @@ from .ops.cuda.spectral import (
     fused_melspec,
     fused_melspec_available,
     fused_melspec_stats,
+    fused_repr_stats,
+    fused_spectral_repr,
 )
 from .ops.fft import _resolve_impl, stft_real
 from .transforms.base import AudioTransform, ComposeAudioTransform
 from .transforms.dgt import DGT
 from .transforms.norm import Normalize
 from .transforms.raw import Mono
-from .transforms.spectral_repr import Magnitude
+from .transforms.spectral_repr import Cartesian, Magnitude, Polar, PolarIF
 from .transforms.stft import STFT
 
 __all__ = ["fuse_forward", "fuse_fit", "fusable", "fit_fusable"]
@@ -64,8 +69,10 @@ def _from_pcm(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _match_melspec(chain: AudioTransform, backend: str = "eager"):
-    """Return (mono, stft, magnitude) if the chain matches, else None."""
+def _spectral_chain(chain: AudioTransform):
+    """``(mono, stft, last)`` of a ``[Mono?] + (STFT | DGT) + last`` chain whose
+    DFT is the GEMM formulation, else None.  Realtime subclasses take frames,
+    not signals, and never match."""
     if not isinstance(chain, ComposeAudioTransform):
         return None
     ts = list(chain.transforms)
@@ -73,16 +80,19 @@ def _match_melspec(chain: AudioTransform, backend: str = "eager"):
     if ts and type(ts[0]) is Mono:
         mono = ts[0]
         ts = ts[1:]
-    if len(ts) != 2:
+    if len(ts) != 2 or type(ts[0]) not in (STFT, DGT):
         return None
-    stft_t, mag_t = ts
-    # offline STFT or DGT (the DGT's gaussian window rides the same fused
-    # formulation through its window buffer); realtime subclasses take frames,
-    # not signals, and never match
-    if type(stft_t) not in (STFT, DGT) or type(mag_t) is not Magnitude:
-        return None
-    if _resolve_impl(stft_t.impl, stft_t.n_fft) != "matmul":
+    if _resolve_impl(ts[0].impl, ts[0].n_fft) != "matmul":
         return None  # the fused formulation is the GEMM DFT
+    return mono, ts[0], ts[1]
+
+
+def _match_melspec(chain: AudioTransform, backend: str = "eager"):
+    """Return (mono, stft, magnitude) if the chain matches, else None."""
+    parts = _spectral_chain(chain)
+    if parts is None or type(parts[2]) is not Magnitude:
+        return None
+    mono, stft_t, mag_t = parts
     if mag_t.mel and mag_t.n_fft != stft_t.n_fft:
         # mismatched bank: let the chain raise its own matmul shape error
         return None
@@ -94,8 +104,46 @@ def _match_melspec(chain: AudioTransform, backend: str = "eager"):
     return mono, stft_t, mag_t
 
 
+def _match_repr(chain: AudioTransform, backend: str = "eager"):
+    """Return ``(mono, stft, rep, second)`` for a fusable representation chain
+    ``[Mono?] + (STFT | DGT) + (Polar | PolarIF | Cartesian)``, else None.
+
+    ``second`` selects the kernels' channel 2: ``"phase"`` (Polar, without
+    ``unwrap``: unwrapping is a cumulative sum over the clip), ``"if"``
+    (PolarIF with the ``forward`` stencil, the only one whose boundary rows
+    are frame-local) or ``"imag"`` (Cartesian)."""
+    parts = _spectral_chain(chain)
+    if parts is None or type(parts[2]) not in (Polar, PolarIF, Cartesian):
+        return None
+    mono, stft_t, rep = parts
+    if rep.stack is not None and not (isinstance(rep.stack, int) and rep.stack < 0):
+        return None  # a front-counted stack dimension depends on the batch rank
+    if type(rep) is Cartesian:
+        second = "imag"
+    elif type(rep) is Polar:
+        if rep.phase.unwrap:
+            return None
+        second = "phase"
+    else:
+        if rep.phase.method != "forward":
+            return None
+        second = "if"
+    if second != "imag":
+        mag_t = rep.magnitude
+        if mag_t.mel and mag_t.n_fft != stft_t.n_fft:
+            return None  # mismatched bank: let the chain raise its own error
+        if backend == "kernel" and mag_t.contrast_mode in ("log", "log10"):
+            return None
+    if backend == "kernel" and not fused_melspec_available(
+        stft_t.n_fft, stft_t.hop_length, stft_t._window_taps
+    ):
+        return None
+    return mono, stft_t, rep, second
+
+
 def fusable(chain: AudioTransform, backend: str = "auto") -> bool:
-    return _match_melspec(chain, "eager" if backend == "auto" else backend) is not None
+    be = "eager" if backend == "auto" else backend
+    return _match_melspec(chain, be) is not None or _match_repr(chain, be) is not None
 
 
 def _from_pcm_for_mono(mono: Mono, x: torch.Tensor) -> torch.Tensor:
@@ -186,6 +234,93 @@ def _kernel_fused(mono: Optional[Mono], stft_t: STFT, mag_t: Magnitude, out_dtyp
     return forward
 
 
+def _stack_repr(rep, y1, y2):
+    if rep.stack is None:
+        return y1, y2
+    return torch.stack([y1, y2], dim=rep.stack)
+
+
+def _repr_config(rep, second):
+    """(contrast, mel bank or None, weighted) the representation kernels take."""
+    if second == "imag":
+        return "none", None, False
+    mag_t = rep.magnitude
+    return (mag_t.contrast_mode or "none", mag_t.mel_bank if mag_t.mel else None,
+            bool(getattr(rep.phase, "weighted", False)))
+
+
+def _eager_fused_repr(mono, stft_t: STFT, rep, second: str, out_dtype):
+    """Both channels from one real/imaginary STFT pass, through the
+    transforms' own channel code (the complex spectrogram of
+    ``chain.forward`` is never formed)."""
+    n_fft, hop = stft_t.n_fft, stft_t.hop_length
+
+    def forward(x: torch.Tensor):
+        x = _from_pcm(x)
+        if mono is not None:
+            x = mono.forward(x)
+        re, im = stft_real(x, n_fft, hop, stft_t.window, impl=stft_t.impl, taps=stft_t._window_taps)
+        if second == "imag":
+            y1 = rep.magnitude._drop_nyquist(rep.magnitude.norm.forward(re))
+            y2 = rep.phase._drop_nyquist(rep.phase.norm.forward(im))
+        else:
+            mag_t = rep.magnitude
+            mag = torch.sqrt(torch.clamp_min(re * re + im * im, torch.finfo(torch.float32).tiny))
+            if mag_t.mel:
+                mag = torch.matmul(mag, mag_t.mel_bank)
+            y1 = mag_t._drop_nyquist(mag_t.norm.forward(mag_t.contrast(mag)))
+            ph = torch.atan2(im, re)
+            y2 = ph if second == "phase" else rep.phase.get_if_from_phase(ph)
+            y2 = rep.phase._drop_nyquist(rep.phase.norm.forward(y2))
+        return _stack_repr(rep, y1.to(out_dtype), y2.to(out_dtype))
+
+    return forward
+
+
+def _kernel_fused_repr(mono, stft_t: STFT, rep, second: str, out_dtype):
+    contrast, mel_bank, weighted = _repr_config(rep, second)
+    eager_forward = _eager_fused_repr(mono, stft_t, rep, second, out_dtype)
+
+    def kernel_forward(x: torch.Tensor):
+        if mono is not None:
+            x = mono.forward(_from_pcm_for_mono(mono, x))
+        batch_shape = x.shape[:-1]
+        o1, s1 = _norm_affine(rep.magnitude.norm)
+        o2, s2 = _norm_affine(rep.phase.norm)
+        y1, y2 = fused_spectral_repr(
+            x.reshape((-1, x.shape[-1])), stft_t.n_fft, stft_t.hop_length, second,
+            mel_bank=mel_bank, aff=(o1, s1, o2, s2), contrast=contrast, weighted=weighted,
+            taps=stft_t._window_taps, window=stft_t.window,
+        )
+        y1 = rep.magnitude._drop_nyquist(y1.reshape(batch_shape + y1.shape[1:]))
+        y2 = rep.phase._drop_nyquist(y2.reshape(batch_shape + y2.shape[1:]))
+        return _stack_repr(rep, y1.to(out_dtype), y2.to(out_dtype))
+
+    class _FusedRepr(torch.autograd.Function):
+        """The kernel's value with the gradient of the eager formulation."""
+
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return kernel_forward(x)
+
+        @staticmethod
+        def backward(ctx, *grads):
+            (x,) = ctx.saved_tensors
+            with torch.enable_grad():
+                xin = x.detach().requires_grad_(True)
+                y = eager_forward(xin)
+            (gx,) = torch.autograd.grad(y, xin, grads if isinstance(y, tuple) else grads[0])
+            return gx
+
+    def forward(x: torch.Tensor):
+        if x.requires_grad:
+            return _FusedRepr.apply(x)
+        return kernel_forward(x)
+
+    return forward
+
+
 def fuse_forward(
     chain: AudioTransform,
     backend: str = "auto",
@@ -209,16 +344,31 @@ def fuse_forward(
         raise ValueError("fuse_forward: out_dtype must be float32 or bfloat16, got %s" % out_dtype)
     if backend == "kernel":
         match = _match_melspec(chain, "kernel")
-        if match is None:
+        if match is not None:
+            return _kernel_fused(*match, out_dtype)
+        rmatch = _match_repr(chain, "kernel")
+        if rmatch is None:
             raise ValueError(
                 "backend='kernel' requested but no fused kernel covers this "
-                "chain (needs a [Mono?] + (STFT | DGT) + Magnitude pattern with "
-                "hop | n_fft, a non-log contrast and a "
-                "shape inside fused_melspec_available); use backend='auto' "
-                "to fall back"
+                "chain (needs a [Mono?] + (STFT | DGT) + (Magnitude | Polar | "
+                "PolarIF | Cartesian) pattern with hop | n_fft, a non-log "
+                "contrast and a shape inside fused_melspec_available); use "
+                "backend='auto' to fall back"
             )
-        return _kernel_fused(*match, out_dtype)
+        return _kernel_fused_repr(*rmatch, out_dtype)
     match = _match_melspec(chain, "eager")
+    rmatch = _match_repr(chain, "eager") if match is None else None
+    if rmatch is not None:
+        eager_r = _eager_fused_repr(*rmatch, out_dtype)
+        kmatch = _match_repr(chain, "kernel")
+        if backend == "eager" or kmatch is None:
+            return eager_r
+        kernel_r = _kernel_fused_repr(*kmatch, out_dtype)
+
+        def auto_repr(x: torch.Tensor):
+            return kernel_r(x) if x.is_cuda else eager_r(x)
+
+        return auto_repr
     if match is None:
         if out_dtype == torch.float32:
             return chain.forward
@@ -275,18 +425,23 @@ def _norm_from_stats(norm: Normalize, st: dict) -> Normalize:
     return norm.with_stats(offset, scale)
 
 
+def _fittable(norm) -> bool:
+    return isinstance(norm, Normalize) and norm.mode is not None
+
+
 def fit_fusable(chain: AudioTransform) -> bool:
-    return _match_fit(chain) is not None
+    return _match_fit(chain) is not None or _match_repr(chain, "kernel") is not None
 
 
 def fuse_fit(
     chain: AudioTransform, backend: str = "auto", mesh=None
 ) -> Callable[..., AudioTransform]:
-    """Return a one-pass ``fit`` for a melspec chain.
+    """Return a one-pass ``fit`` for a melspec or representation chain.
 
     The returned callable maps raw audio to a fitted copy of ``chain`` like
     ``chain.fit(x)``, but the normalization statistics are reduced inside the
-    fused kernel (``ops/cuda/spectral.py:fused_melspec_stats``): neither the
+    fused kernel (``ops/cuda/spectral.py:fused_melspec_stats``, or
+    ``fused_repr_stats`` for both channels of a representation): neither the
     framed signal nor the spectrogram is ever written out.  Matched chains
     accept int16 PCM input.  ``backend="auto"`` takes the kernel for a CUDA
     input on an eligible chain and ``chain.fit`` otherwise;
@@ -299,6 +454,11 @@ def fuse_fit(
     if mesh is not None:
         raise NotImplementedError("fuse_fit(mesh=) is not ported yet (ROADMAP Queue 1 item 12)")
     match = _match_fit(chain)
+    # the representation fit takes the kernel's gate, as _match_fit does: the
+    # channel-1 statistics are of the contrasted magnitude
+    rmatch = _match_repr(chain, "kernel") if match is None else None
+    if rmatch is not None:
+        return _fuse_fit_repr(chain, backend, *rmatch)
     if match is None:
         if backend == "kernel":
             raise ValueError(
@@ -308,7 +468,7 @@ def fuse_fit(
         return chain.fit
     mono, stft_t, mag_t = match
     norm = mag_t.norm
-    if not (isinstance(norm, Normalize) and norm.mode is not None):
+    if not _fittable(norm):
         return chain.fit  # nothing to fit on this pattern
 
     def fit(x: torch.Tensor, mask=None) -> AudioTransform:
@@ -327,6 +487,34 @@ def fuse_fit(
         # Mono/STFT fits are no-ops in the matched pattern; only the
         # Magnitude's norm carries fitted state.
         children = [new_mag if t is mag_t else t for t in chain.transforms]
+        return ComposeAudioTransform(transforms=children, sr=chain.sr, device=chain.device)
+
+    return fit
+
+
+def _fuse_fit_repr(chain, backend, mono, stft_t, rep, second):
+    """The representation pattern's one-pass fit: both channels' statistics
+    from one kernel launch (``fused_repr_stats``); a ``Dummy`` channel keeps
+    its identity norm."""
+    if not (_fittable(rep.magnitude.norm) or _fittable(rep.phase.norm)):
+        return chain.fit  # both channels unnormalized: nothing to fit
+    contrast, _, weighted = _repr_config(rep, second)
+
+    def fit(x: torch.Tensor, mask=None) -> AudioTransform:
+        if mask is not None or (backend == "auto" and not x.is_cuda):
+            return chain.fit(_from_pcm(x), mask=mask)
+        y = mono.forward(_from_pcm_for_mono(mono, x)) if mono is not None else x
+        st = fused_repr_stats(
+            y.reshape((-1, y.shape[-1])), stft_t.n_fft, stft_t.hop_length, second,
+            contrast=contrast, weighted=weighted, taps=stft_t._window_taps, window=stft_t.window,
+        )
+        new_mag, new_ph = rep.magnitude, rep.phase
+        if _fittable(new_mag.norm):
+            new_mag = new_mag.replace(norm=_norm_from_stats(new_mag.norm, {**st["ch1"], "count": st["count"]}))
+        if _fittable(new_ph.norm):
+            new_ph = new_ph.replace(norm=_norm_from_stats(new_ph.norm, {**st["ch2"], "count": st["count"]}))
+        new_rep = rep.replace(magnitude=new_mag, phase=new_ph)
+        children = [new_rep if t is rep else t for t in chain.transforms]
         return ComposeAudioTransform(transforms=children, sr=chain.sr, device=chain.device)
 
     return fit

@@ -1,6 +1,7 @@
 """Numerical kernels of the port: framing, windows, DFT-as-GEMM STFT, mel,
-Griffin-Lim, PGHI, and the hand-written CUDA kernels under ``ops.cuda``."""
-from . import fft, framing, griffinlim, mel, pghi, windows
+phase (unwrap, IF differences and integrals), Griffin-Lim, PGHI, and the
+hand-written CUDA kernels under ``ops.cuda``."""
+from . import fft, framing, griffinlim, mel, pghi, phase, windows
 from .fft import istft, stft
 from .framing import frame, overlap_add, pad_axis
 
@@ -10,6 +11,7 @@ __all__ = [
     "griffinlim",
     "mel",
     "pghi",
+    "phase",
     "windows",
     "stft",
     "istft",

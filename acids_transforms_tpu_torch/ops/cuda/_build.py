@@ -116,6 +116,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p,                         # partials, stats, stream
     ]
     lib.att_melspec_stats.restype = i
+    lib.att_repr_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.att_repr_smem_bytes.restype = ll
+    lib.att_repr.argtypes = [
+        i, p, i, ll, i, i,               # stats, x_rows, x_int16, B, n_tiles, tile_t
+        i, i, i, i, i,                   # n_rows_total, hop, overlap, F, T
+        p, p, p, p,                      # bcos, bsin, twr, twi
+        ctypes.POINTER(f), i, i, i, i,   # taps, P, second, weighted, contrast
+        p, p, p, p,                      # mel_bank, mel_lo, mel_hi, aff
+        p, p, p, p, p,                   # out1, out2, partials, stats, stream
+    ]
+    lib.att_repr.restype = i
     lib.att_gl_smem_bytes.argtypes = [i, i, i, i]
     lib.att_gl_smem_bytes.restype = ll
     lib.att_gl_step.argtypes = [
@@ -126,6 +137,24 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, p,                # nare, naim, rre, rim, scratch, stream
     ]
     lib.att_gl_step.restype = i
+    lib.att_gl_project.argtypes = [
+        p, p, p, p,                      # mag, are, aim, env
+        ll, i, i, i, i,                  # B, T, F, hop, overlap
+        p, p, p, p, p, p,                # bcos, bsin, ict, ist, twr, twi
+        ctypes.POINTER(f), i, i,         # taps, P, tile_t
+        p, p, p,                         # rre, rim, stream
+    ]
+    lib.att_gl_project.restype = i
+    lib.att_gl_fullk_smem_bytes.argtypes = [i, i, i, i]
+    lib.att_gl_fullk_smem_bytes.restype = ll
+    lib.att_gl_fullk_step.argtypes = [
+        p, p, p, p, p, p,                # mag, are, aim, tre, tim, env
+        p, p, p,                         # syn, wc, ws
+        ll, i, i, i, i, i,               # B, T, F, hop, overlap, Kp
+        i, i, f,                         # rows, tile_t, mom
+        p, p, p, p, p,                   # nare, naim, rre, rim, stream
+    ]
+    lib.att_gl_fullk_step.restype = i
     lib.att_pghi_synth_smem_bytes.argtypes = [i, i, i]
     lib.att_pghi_synth_smem_bytes.restype = ll
     lib.att_pghi_phases.argtypes = [

@@ -1,5 +1,6 @@
-"""Whole-iteration momentum Griffin-Lim step (twin of the JAX
-``ops/pallas/glstep.py``, chunk-factored momentum entries).
+"""Whole-iteration momentum Griffin-Lim step and the consistency projection
+(twin of the JAX ``ops/pallas/glstep.py``: the chunk-factored entries for
+cosine-sum windows, and the full-K step for any other window).
 
 One invocation runs ``iters`` full iterations: consistency projection
 ``STFT(ISTFT(mag * angles))`` with the chunk factorization both ways, momentum
@@ -29,6 +30,18 @@ accordingly, in the first and last frame only.
 
 On CUDA tensors the step launches ``csrc/glstep.cu`` (or raises); on CPU
 tensors it runs :func:`gl_momentum_step_reference`, the plain PyTorch version.
+``gl_project`` is the projection alone (kernel I, the same source without the
+momentum update).
+
+``make_gl_momentum_step_fullk`` is the step for a window without cosine-sum
+taps (the DGT's gaussian, kernel J in ``csrc/glstep_fullk.cu``): the window
+lies in full-length inverse and forward DFT bases and the overlap-add runs on
+explicit synthesis frames.  Its boundary rule is the eager loop's, not the
+one above: the overlap-add signal (envelope floored at ``eps^2``) is trimmed
+to the centre and reflect-padded again before it is re-framed, so every
+frame equals one ``istft`` + ``stft`` of the eager loop.  The JAX kernel it
+replaces re-frames the un-trimmed signal; seeded by PGHI, that leaves the
+loud first and last frames far off the target (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -40,6 +53,7 @@ import torch
 from ..fft import (
     _chunk_dft_matrices,
     _hermitian_weights,
+    _reflect_pad,
     _tables,
     _taps_conv,
     _twiddle_analysis,
@@ -48,13 +62,20 @@ from ..fft import (
 )
 from ..framing import overlap_add
 from . import _build
+from .spectral import _fullk_basis
 
 __all__ = [
     "make_gl_momentum_step",
     "gl_momentum_step_reference",
     "gl_momentum_step_oracle",
     "gl_project_available",
+    "gl_project",
+    "gl_project_reference",
     "gl_max_chain",
+    "gl_fullk_available",
+    "make_gl_momentum_step_fullk",
+    "gl_momentum_step_fullk_reference",
+    "gl_momentum_step_fullk_oracle",
     "launches",
     "reset_launches",
 ]
@@ -63,7 +84,9 @@ MAX_OVERLAP = 8                   # halo rows per side the kernel's tiles hold
 MAX_SMEM = 232448                 # bytes of shared memory a block may use on sm_90
 
 #: kernel launches made by the steps of this module, by kernel
-launches: Dict[str, int] = {"gl_momentum_step": 0, "gl_momentum_chain": 0}
+launches: Dict[str, int] = {
+    "gl_momentum_step": 0, "gl_momentum_chain": 0, "gl_project": 0, "gl_momentum_fullk": 0,
+}
 
 
 def reset_launches() -> None:
@@ -212,6 +235,29 @@ def gl_momentum_step_oracle(mag, are, aim, tre, tim, env, n_fft, hop_length, tap
     return are, aim, tprev.real, tprev.imag
 
 
+def _to_rows(a: torch.Tensor) -> torch.Tensor:
+    return a.to(torch.float32).contiguous()
+
+
+def _from_rows(a: torch.Tensor) -> torch.Tensor:
+    return a
+
+
+def _checked(a: torch.Tensor, what: str, dev, shape) -> torch.Tensor:
+    """A step's state array, as the kernels take it, or raise."""
+    if a.device != dev or a.dtype != torch.float32 or tuple(a.shape) != shape:
+        raise ValueError(
+            "%s must be float32 %s on %s, got %s %s on %s"
+            % (what, shape, dev, a.dtype, tuple(a.shape), a.device)
+        )
+    if not a.is_contiguous():
+        raise ValueError("%s must be contiguous (use to_rows)" % what)
+    return a
+
+
+_STATE = ("are", "aim", "tre", "tim")
+
+
 def make_gl_momentum_step(
     mag: torch.Tensor,
     n_fft: int,
@@ -244,19 +290,13 @@ def make_gl_momentum_step(
     env = _env_rows(T, n_fft, hop_length, window.to(dev))
     mom = float(momentum)
 
-    def to_rows(a: torch.Tensor) -> torch.Tensor:
-        return a.to(torch.float32).contiguous()
-
-    def from_rows(a: torch.Tensor) -> torch.Tensor:
-        return a
-
     if not mag.is_cuda:
         def step_plain(are, aim, tre, tim):
             return gl_momentum_step_reference(
                 mag32, are, aim, tre, tim, env, n_fft, hop_length, taps, mom, iters
             )
 
-        return step_plain, to_rows, from_rows
+        return step_plain, _to_rows, _from_rows
 
     if not gl_project_available(n_fft, hop_length, taps):
         raise ValueError(
@@ -287,18 +327,8 @@ def make_gl_momentum_step(
     name = "gl_momentum_chain" if iters >= 2 else "gl_momentum_step"
     lib = _build.load_library()
 
-    def _checked(a: torch.Tensor, what: str) -> torch.Tensor:
-        if a.device != dev or a.dtype != torch.float32 or tuple(a.shape) != (B, T, F):
-            raise ValueError(
-                "%s must be float32 %s on %s, got %s %s on %s"
-                % (what, (B, T, F), dev, a.dtype, tuple(a.shape), a.device)
-            )
-        if not a.is_contiguous():
-            raise ValueError("%s must be contiguous (use to_rows)" % what)
-        return a
-
     def step(are, aim, tre, tim):
-        ins = [_checked(a, n) for a, n in zip((are, aim, tre, tim), ("are", "aim", "tre", "tim"))]
+        ins = [_checked(a, n, dev, (B, T, F)) for a, n in zip((are, aim, tre, tim), _STATE)]
         outs = [torch.empty((B, T, F), dtype=torch.float32, device=dev) for _ in range(4)]
         with torch.cuda.device(dev):
             code = lib.att_gl_step(
@@ -314,4 +344,214 @@ def make_gl_momentum_step(
         launches[name] += 1
         return tuple(outs)
 
-    return step, to_rows, from_rows
+    return step, _to_rows, _from_rows
+
+
+# ------------------------------------------------- kernel I: the projection
+def gl_project_reference(mag, ang_re, ang_im, n_fft, hop_length, taps, window):
+    """Plain PyTorch version of :func:`gl_project`."""
+    env = _env_rows(mag.shape[-2], n_fft, hop_length, window.to(mag.device))
+    return _project(mag.to(torch.float32), ang_re.to(torch.float32), ang_im.to(torch.float32),
+                    env, n_fft, hop_length, taps)
+
+
+def gl_project(mag, ang_re, ang_im, n_fft, hop_length, taps, window):
+    """One Griffin-Lim consistency projection ``STFT(ISTFT(mag * (ang_re + i
+    ang_im)))`` of ``(B, T, F)`` real pairs, with the step's boundary rule
+    (module note); returns ``(re, im)``.  On a CUDA tensor one launch of the
+    step kernel without its momentum update (or a raise)."""
+    if mag.ndim != 3:
+        raise ValueError("expected (B, T, F) magnitudes")
+    if not mag.is_cuda:
+        return gl_project_reference(mag, ang_re, ang_im, n_fft, hop_length, taps, window)
+    if not gl_project_available(n_fft, hop_length, taps):
+        raise ValueError(
+            "the CUDA Griffin-Lim kernel does not cover n_fft=%d hop=%d (need "
+            "cosine-sum taps with P <= 4, hop | n_fft, 2 <= overlap <= 8 and "
+            "hop %% 32 == 0)" % (n_fft, hop_length)
+        )
+    B, T, F = mag.shape
+    dev = mag.device
+    tile_t = _pick_tile(T, 1, n_fft // hop_length, hop_length)
+    if tile_t is None:
+        raise NotImplementedError(
+            "the CUDA Griffin-Lim kernel holds a block's signal window in shared "
+            "memory, which n_fft=%d hop=%d exceeds (ROADMAP Queue 2, K9)" % (n_fft, hop_length)
+        )
+    ins = [a.to(torch.float32).contiguous() for a in (mag, ang_re, ang_im)]
+    for a in ins:
+        if a.device != dev or tuple(a.shape) != (B, T, F):
+            raise ValueError("mag, ang_re and ang_im must be (B, T, F) on one device")
+    env = _env_rows(T, n_fft, hop_length, window.to(dev))
+    Ch, Sh = _tables(_chunk_dft_matrices, dev, n_fft, hop_length)
+    twr, twi = _tables(_twiddles, dev, n_fft, hop_length)
+    (wgt,) = _tables(_hermitian_weights, dev, n_fft)
+    ict = (Ch.T * wgt[:, None]).contiguous()
+    ist = (Sh.T * wgt[:, None]).contiguous()
+    taps_c, P = _build.taps_array(taps)
+    rre = torch.empty((B, T, F), dtype=torch.float32, device=dev)
+    rim = torch.empty_like(rre)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        code = lib.att_gl_project(
+            *[a.data_ptr() for a in ins], env.data_ptr(), B, T, F, hop_length, n_fft // hop_length,
+            Ch.data_ptr(), Sh.data_ptr(), ict.data_ptr(), ist.data_ptr(), twr.data_ptr(),
+            twi.data_ptr(), taps_c, P, tile_t, rre.data_ptr(), rim.data_ptr(),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    _build.check(code, "gl_project")
+    launches["gl_project"] += 1
+    return rre, rim
+
+
+# --------------------------------------- kernel J: the full-K momentum step
+def _fullk_smem_bytes(rows: int, overlap: int, hop: int, k_padded: int) -> int:
+    """Shared memory of one block of the full-K step, as ``csrc/glstep_fullk.cu``
+    lays it out: the block's samples, then the frames' ``[re | im]`` rows and
+    the staged synthesis basis, or the analysis work area where larger."""
+    syn = (rows + overlap - 1) * k_padded + 32 * 256
+    ana = 2 * 32 * 128 + 2 * 40 * 128 + 2 * 32 * 128 + 2 * 128
+    return 4 * (rows * hop + max(syn, ana))
+
+
+def _pick_fullk_rows(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
+    """``(rows, tile_t)`` of the widest block that fits shared memory, or
+    None.  A block computes ``rows <= 32`` hop chunks of samples starting one
+    chunk before its first frame, and its frames are ``tile_t = min(32, rows
+    - overlap)``; ``rows >= overlap + 2``, so that the first block holds chunk
+    ``overlap``, whose first sample the reflection of frame 0 reads."""
+    from .pghi_kernel import _k_padded  # pghi_kernel imports this module
+
+    overlap = n_fft // hop
+    kp = _k_padded(n_fft // 2 + 1)
+    for rows in range(32, overlap + 1, -1):
+        if _fullk_smem_bytes(rows, overlap, hop, kp) <= MAX_SMEM:
+            return rows, min(32, rows - overlap)
+    return None
+
+
+def gl_fullk_available(n_fft: int, hop_length: int) -> bool:
+    """Whether the full-K step's structure covers the shape (any window):
+    ``hop | n_fft`` with 2 <= overlap <= 8 and hop a multiple of 32 (the
+    staged contraction chunk).  A shape inside this gate whose narrowest
+    block exceeds shared memory (n_fft 4096 at overlap 8, n_fft 8192) is not
+    silently sent elsewhere: the step factory raises ``NotImplementedError``
+    on a CUDA tensor."""
+    if n_fft % hop_length != 0 or n_fft % 2:
+        return False
+    return 2 <= n_fft // hop_length <= MAX_OVERLAP and hop_length % 32 == 0
+
+
+def _trim_reflect(signal: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """The un-trimmed overlap-add signal ``(..., (T - 1) hop + n_fft)`` with
+    its centre ``(T - 1) hop`` samples kept and reflect-padded by ``n_fft //
+    2`` again: what one ``istft`` then ``stft`` of the eager loop frames."""
+    half = n_fft // 2
+    trimmed = signal[..., half: signal.shape[-1] - (n_fft - half)]
+    return _reflect_pad(trimmed, half)
+
+
+def gl_momentum_step_fullk_reference(mag, are, aim, tre, tim, env, n_fft, hop_length, window, mom):
+    """Plain PyTorch version of the full-K step: one momentum-GL iteration on
+    ``(B, T, F)`` arrays, returning ``(nare, naim, rre, rim)``."""
+    from .pghi_kernel import _windowed_idft
+
+    Aw, Bw = _windowed_idft(window.to(mag.device), n_fft)
+    frames = torch.matmul(mag * are, Aw) + torch.matmul(mag * aim, Bw)
+    signal = overlap_add(frames, hop_length) / env.reshape(-1)
+    WC, WS = _fullk_basis(window.to(mag.device), n_fft)
+    reframed = _trim_reflect(signal, n_fft, hop_length).unfold(-1, n_fft, hop_length)
+    rre, rim = torch.matmul(reframed, WC), torch.matmul(reframed, WS)
+    ure = rre - mom * tre
+    uim = rim - mom * tim
+    n = torch.clamp_min(torch.sqrt(ure * ure + uim * uim), 1e-16)
+    return ure / n, uim / n, rre, rim
+
+
+def gl_momentum_step_fullk_oracle(mag, are, aim, tre, tim, env, n_fft, hop_length, window, mom):
+    """The full-K step in float64 by the textbook route (windowed inverse FFT
+    of each frame, overlap-add, envelope, centre trim, reflect padding,
+    re-frame, window, FFT); same arguments as
+    :func:`gl_momentum_step_fullk_reference`."""
+    f64 = torch.float64
+    mag, are, aim, tre, tim = (a.to(f64) for a in (mag, are, aim, tre, tim))
+    w = window.to(device=mag.device, dtype=f64)
+    frames = torch.fft.irfft(torch.complex(mag * are, mag * aim), n=n_fft) * w
+    signal = overlap_add(frames, hop_length) / env.to(f64).reshape(-1)
+    padded = _trim_reflect(signal, n_fft, hop_length)
+    rebuilt = torch.fft.rfft(padded.unfold(-1, n_fft, hop_length) * w)
+    u = rebuilt - mom * torch.complex(tre, tim)
+    angles = u / torch.clamp_min(u.abs(), 1e-16)
+    return angles.real, angles.imag, rebuilt.real, rebuilt.imag
+
+
+def make_gl_momentum_step_fullk(
+    mag: torch.Tensor,
+    n_fft: int,
+    hop_length: int,
+    window: torch.Tensor,
+    momentum: float,
+) -> Tuple[Callable, Callable, Callable]:
+    """Full-K variant of :func:`make_gl_momentum_step` for windows without
+    cosine-sum taps: the same contract, one iteration per invocation (the
+    kernel has no chained form), with the eager loop's boundary rule (module
+    note)."""
+    if mag.ndim != 3:
+        raise ValueError("expected (B, T, F) magnitudes")
+    B, T, F = mag.shape
+    if F != n_fft // 2 + 1:
+        raise ValueError("magnitude has %d bins, n_fft=%d needs %d" % (F, n_fft, n_fft // 2 + 1))
+    dev = mag.device
+    mag32 = mag.to(torch.float32).contiguous()
+    window = window.to(dev)
+    env = _env_rows(T, n_fft, hop_length, window)
+    mom = float(momentum)
+
+    if not mag.is_cuda:
+        def step_plain(are, aim, tre, tim):
+            return gl_momentum_step_fullk_reference(
+                mag32, are, aim, tre, tim, env, n_fft, hop_length, window, mom)
+
+        return step_plain, _to_rows, _from_rows
+
+    if not gl_fullk_available(n_fft, hop_length):
+        raise ValueError(
+            "the CUDA full-K Griffin-Lim kernel does not cover n_fft=%d hop=%d "
+            "(need hop | n_fft, 2 <= overlap <= 8 and hop %% 32 == 0)" % (n_fft, hop_length)
+        )
+    pick = _pick_fullk_rows(n_fft, hop_length)
+    if (T - 1) * hop_length <= n_fft // 2:
+        raise NotImplementedError(
+            "the CUDA full-K Griffin-Lim kernel reflects the trimmed signal once, "
+            "which %d frames at n_fft=%d hop=%d are too few for; use fused=False"
+            % (T, n_fft, hop_length)
+        )
+    if pick is None:
+        raise NotImplementedError(
+            "the CUDA full-K Griffin-Lim kernel holds a block's frames and "
+            "samples in shared memory, which n_fft=%d hop=%d exceeds (ROADMAP "
+            "Queue 2, K9: n_fft 4096 at overlap 8, n_fft 8192); use fused=False"
+            % (n_fft, hop_length)
+        )
+    from .pghi_kernel import _synth_basis
+
+    rows, tile_t = pick
+    syn = _synth_basis(window, n_fft, hop_length)
+    WC, WS = _fullk_basis(window, n_fft)
+    lib = _build.load_library()
+
+    def step(are, aim, tre, tim):
+        ins = [_checked(a, n, dev, (B, T, F)) for a, n in zip((are, aim, tre, tim), _STATE)]
+        outs = [torch.empty((B, T, F), dtype=torch.float32, device=dev) for _ in range(4)]
+        with torch.cuda.device(dev):
+            code = lib.att_gl_fullk_step(
+                mag32.data_ptr(), *[a.data_ptr() for a in ins], env.data_ptr(), syn.data_ptr(),
+                WC.data_ptr(), WS.data_ptr(), B, T, F, hop_length, n_fft // hop_length,
+                syn.shape[1], rows, tile_t, mom, *[o.data_ptr() for o in outs],
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+            )
+        _build.check(code, "gl_momentum_fullk")
+        launches["gl_momentum_fullk"] += 1
+        return tuple(outs)
+
+    return step, _to_rows, _from_rows

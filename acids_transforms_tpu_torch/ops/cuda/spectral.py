@@ -1,5 +1,6 @@
-"""Fused mel-spectrogram forward and fit statistics (twin of the JAX
-``ops/pallas/spectral.py``, chunk-factored and full-K paths).
+"""Fused mel-spectrogram and two-channel representation forwards and their
+fit statistics (twin of the JAX ``ops/pallas/spectral.py``, chunk-factored
+and full-K paths).
 
 ``fused_melspec`` computes ``(contrast(|stft(x)|^power @ mel_bank) - offset) /
 scale`` and ``fused_melspec_stats`` the fit statistics of ``contrast(|stft(x)|)``
@@ -16,10 +17,16 @@ DGT's gaussian for one) the full-K one: frame ``t`` is the slice ``row[t hop :
 t hop + n_fft]`` of the same padded rows against a basis of ``n_fft x 2F`` with
 the window folded in, ``overlap`` times the multiply-adds of the factored form.
 Both need ``hop | n_fft``.
+
+``fused_spectral_repr`` and ``fused_repr_stats`` are the two-channel twins
+(Polar, PolarIF, Cartesian): one DFT feeds channel 1 (``|X|`` through mel,
+contrast and affine, or ``Re``) and channel 2 (the angle, the frame-local
+instantaneous frequency, or ``Im``) with an affine each.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -42,6 +49,10 @@ __all__ = [
     "fused_melspec_stats",
     "fused_melspec_stats_reference",
     "fused_melspec_available",
+    "fused_spectral_repr",
+    "fused_spectral_repr_reference",
+    "fused_repr_stats",
+    "fused_repr_stats_reference",
     "launches",
     "reset_launches",
 ]
@@ -54,7 +65,11 @@ _CONTRASTS = {"none": 0, None: 0, "log1p": 1}
 launches: Dict[str, int] = {
     "fused_melspec": 0, "fused_melspec_stats": 0,
     "fused_melspec_fullk": 0, "fused_melspec_stats_fullk": 0,
+    "fused_spectral_repr": 0, "fused_spectral_repr_fullk": 0,
+    "fused_repr_stats": 0, "fused_repr_stats_fullk": 0,
 }
+#: channel-2 selectors of the representation kernels
+SECONDS = {"phase": 0, "if": 1, "imag": 2}
 
 
 def reset_launches() -> None:
@@ -91,13 +106,31 @@ def fused_melspec_available(n_fft: int, hop_length: int, taps) -> bool:
     return 2 <= overlap <= 8 and hop_length % 32 == 0
 
 
-def _prepare_rows(x: torch.Tensor, n_fft: int, hop: int, center: bool, tile_t: int = TILES[0]):
+def _repr_smem_bytes(tile_t: int, hop: int, overlap: int, n_bins: int, stats: bool) -> int:
+    """Shared memory of one block of the representation kernels (G, H): one
+    hop chunk and one spectrum row more than A and B, and no channel-1 rows
+    in the statistics kernel."""
+    work = 2 * 32 * 128 + 2 * 40 * 128 + 2 * (tile_t + 1) * 128 + 2 * 128
+    return 4 * ((tile_t + overlap) * hop + (0 if stats else tile_t * n_bins) + work)
+
+
+def _pick_repr_tile(hop: int, overlap: int, n_bins: int) -> Optional[int]:
+    """The widest frame tile whose forward block fits shared memory and whose
+    rows (tile, halo frame and overlap) fit the analysis tile's 40, or None."""
+    for tile_t in TILES:
+        if tile_t + overlap <= 40 and _repr_smem_bytes(tile_t, hop, overlap, n_bins, False) <= MAX_SMEM:
+            return tile_t
+    return None
+
+
+def _prepare_rows(x: torch.Tensor, n_fft: int, hop: int, center: bool, tile_t: int = TILES[0],
+                  lead: int = 0):
     """Centre-pad, pad to the tiled row count plus halo, reshape to hop rows.
 
-    One concatenate builds the padded signal (reflect head, body, reflect
-    tail, zero tail); a clip no longer than ``n_fft // 2`` needs several
-    reflections and takes the general pad.  Keeps int16 input int16.
-    Returns ``(rows (B, n_rows, hop), T, n_tiles)``."""
+    One concatenate builds the padded signal (``lead`` zero chunks, reflect
+    head, body, reflect tail, zero tail); a clip no longer than ``n_fft // 2``
+    needs several reflections and takes the general pad.  Keeps int16 input
+    int16.  Returns ``(rows (B, n_rows, hop), T, n_tiles)``."""
     B, L = x.shape
     overlap = n_fft // hop
     half = n_fft // 2
@@ -110,12 +143,13 @@ def _prepare_rows(x: torch.Tensor, n_fft: int, hop: int, center: bool, tile_t: i
     if T < 1:
         raise ValueError("signal of %d samples is shorter than one frame" % L)
     n_tiles = -(-T // tile_t)
-    n_rows = n_tiles * tile_t + overlap - 1
+    n_rows = n_tiles * tile_t + overlap - 1 + lead
     total = n_rows * hop
+    padded_len += lead * hop
+    pieces = [x.new_zeros((B, lead * hop))] if lead else []
     if center and half >= L:
-        pieces = [_reflect_pad(x, half)]
+        pieces.append(_reflect_pad(x, half))
     else:
-        pieces = []
         if center:
             pieces.append(x[:, 1: half + 1].flip(-1))
         pieces.append(x)
@@ -436,3 +470,254 @@ def fused_melspec_stats(
         "max": stats[3].max().float(),
         "count": B * T * F,
     }
+
+
+# ---------------------------------------------------------------------------
+# Two-channel representations (kernels G and H)
+
+
+def _check_repr(x, n_fft, hop, second, taps, window) -> None:
+    if second not in SECONDS:
+        raise ValueError("second must be 'phase', 'if' or 'imag', got %r" % (second,))
+    _check_input(x, n_fft, hop, taps, window)
+
+
+def _pin_nyquist(im: torch.Tensor) -> torch.Tensor:
+    """The nyquist bin of a real signal's spectrum is real."""
+    im = im.clone()
+    im[..., -1] = 0.0
+    return im
+
+
+def _wrap_diff(d: torch.Tensor) -> torch.Tensor:
+    """Principal value of a phase difference (the kernels' ``wrap_diff``)."""
+    pi = math.pi
+    m = torch.remainder(d + pi, 2.0 * pi) - pi
+    m = torch.where((m == -pi) & (d > 0), pi, m)
+    return torch.where(d.abs() < pi, d, m)
+
+
+def _if_rows(ph: torch.Tensor, weighted: bool) -> torch.Tensor:
+    """Frame-local IF of ``(B, T, F)`` phases: ``unwrap`` then the forward
+    stencil, as ``IF(method="forward")`` computes it (the unwrapped
+    consecutive difference is the principal difference)."""
+    T = ph.shape[-2]
+    v = torch.cat([ph[:, :1], _wrap_diff(ph[:, 1:] - ph[:, :-1]) * 0.5], dim=1)
+    v = torch.cat([v[:, :-1] * (1.0 / math.pi), v[:, -1:]], dim=1)
+    if weighted:
+        # the parabolic window in float64, rounded once (as the kernels do)
+        n = torch.arange(T, dtype=torch.float64, device=ph.device)
+        w = (1.5 * T) / (T * T - 1.0) * (1.0 - ((n - (T / 2.0 - 1.0)) / (T / 2.0)) ** 2)
+        v = v * w.to(torch.float32)[:, None]
+    return v
+
+
+def _repr_channels(x, n_fft, hop, center, taps, window, second, contrast, mel_bank, weighted):
+    """Pre-affine (channel 1, channel 2) of the representation kernels."""
+    re, im = _spectrum(x, n_fft, hop, center, taps, window)
+    im = _pin_nyquist(im)
+    if second == "imag":
+        return re, im
+    mag = torch.sqrt(re * re + im * im)
+    if mel_bank is not None:
+        mag = torch.matmul(mag, mel_bank)
+    # a zero imaginary part of either sign counts as +0 (a negative real
+    # axis is +pi), and the nyquist angle is exactly 0 or pi
+    ph = torch.atan2(torch.where(im == 0, 0.0, im), re)
+    ph[..., -1] = torch.where(re[..., -1] < 0, math.pi, 0.0)
+    ch2 = ph if second == "phase" else _if_rows(ph, weighted)
+    return _apply_contrast(mag, contrast), ch2
+
+
+def fused_spectral_repr_reference(
+    x: torch.Tensor,
+    n_fft: int,
+    hop_length: int,
+    second: str,
+    mel_bank: Optional[torch.Tensor] = None,
+    aff=(0.0, 1.0, 0.0, 1.0),
+    contrast: str = "log1p",
+    weighted: bool = False,
+    center: bool = True,
+    taps: Optional[tuple] = None,
+    window: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`fused_spectral_repr`."""
+    _check_repr(x, n_fft, hop_length, second, taps, window)
+    if second == "imag":
+        mel_bank, contrast = None, "none"
+    c1, c2 = _repr_channels(x, n_fft, hop_length, center, taps, window, second, contrast,
+                            mel_bank, weighted)
+    return (c1 - aff[0]) / aff[1], (c2 - aff[2]) / aff[3]
+
+
+def fused_repr_stats_reference(
+    x: torch.Tensor,
+    n_fft: int,
+    hop_length: int,
+    second: str,
+    contrast: str = "log1p",
+    weighted: bool = False,
+    center: bool = True,
+    taps: Optional[tuple] = None,
+    window: Optional[torch.Tensor] = None,
+) -> dict:
+    """Plain PyTorch version of :func:`fused_repr_stats`."""
+    x = x.reshape((-1, x.shape[-1]))
+    _check_repr(x, n_fft, hop_length, second, taps, window)
+    if second == "imag":
+        contrast = "none"
+    c1, c2 = _repr_channels(x, n_fft, hop_length, center, taps, window, second, contrast,
+                            None, weighted)
+
+    def chan(v):
+        vd = v.double()
+        return {"sum": vd.sum(), "sumsq": (vd * vd).sum(), "min": v.min(), "max": v.max()}
+
+    return {"ch1": chan(c1), "ch2": chan(c2), "count": int(c1.numel())}
+
+
+def _repr_kernel_tile(n_fft, hop, taps) -> int:
+    """The representation kernels' frame tile for this shape, or raise."""
+    if not fused_melspec_available(n_fft, hop, taps):
+        _kernel_tile(n_fft, hop, taps)  # raises with the reason
+    tile_t = _pick_repr_tile(hop, n_fft // hop, n_fft // 2 + 1)
+    if tile_t is None:
+        raise NotImplementedError(
+            "the CUDA representation kernels hold one block's tile in shared "
+            "memory, which n_fft=%d hop=%d exceeds (ROADMAP Queue 2, K7: shapes "
+            "above n_fft 4096); use backend='eager'" % (n_fft, hop)
+        )
+    return tile_t
+
+
+def _launch_repr(x, n_fft, hop, second, taps, window, contrast, weighted, center, stats,
+                 mel_bank=None, aff=None):
+    """One launch of kernel G (``stats=False``) or H; returns its outputs."""
+    tile_t = _repr_kernel_tile(n_fft, hop, taps)
+    if contrast not in _CONTRASTS:
+        _apply_contrast(x, contrast)  # raises with the reason
+    dev = x.device
+    F = n_fft // 2 + 1
+    rows, T, n_tiles = _prepare_rows(x, n_fft, hop, center, tile_t, lead=1)
+    B = rows.shape[0]
+    (bc, bs), twr_p, twi_p, taps_c, P = _front_end(dev, n_fft, hop, taps, window)
+    bank_p = lo_p = hi_p = None
+    if mel_bank is not None:
+        if mel_bank.device != dev or mel_bank.dtype != torch.float32 or tuple(mel_bank.shape) != (F, F):
+            raise ValueError("mel_bank must be a float32 (n_bins, n_bins) square bank on the input's device")
+        bank = mel_bank.contiguous()
+        lo, hi = _mel_band(bank)
+        bank_p, lo_p, hi_p = bank.data_ptr(), lo.data_ptr(), hi.data_ptr()
+    out1 = out2 = partials = stats_t = aff_t = None
+    if stats:
+        partials = torch.empty((B * n_tiles, 8, F), dtype=torch.float32, device=dev)
+        stats_t = torch.empty((8, F), dtype=torch.float64, device=dev)
+    else:
+        aff_t = torch.stack([torch.as_tensor(a, dtype=torch.float32, device=dev).reshape(()) for a in aff])
+        out1 = torch.empty((B, T, F), dtype=torch.float32, device=dev)
+        out2 = torch.empty((B, T, F), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        code = lib.att_repr(
+            int(stats), rows.data_ptr(), int(rows.dtype == torch.int16), B, n_tiles, tile_t,
+            rows.shape[1], hop, n_fft // hop, F, T, bc.data_ptr(), bs.data_ptr(), twr_p, twi_p,
+            taps_c, P, SECONDS[second], int(bool(weighted)), _CONTRASTS[contrast],
+            bank_p, lo_p, hi_p, ptr(aff_t), ptr(out1), ptr(out2), ptr(partials), ptr(stats_t),
+            _stream(),
+        )
+    name = ("fused_repr_stats" if stats else "fused_spectral_repr") + ("" if taps is not None else "_fullk")
+    _build.check(code, name)
+    launches[name] += 1
+    return (stats_t, B * T * F) if stats else (out1, out2)
+
+
+def fused_spectral_repr(
+    x: torch.Tensor,
+    n_fft: int,
+    hop_length: int,
+    second: str,
+    mel_bank: Optional[torch.Tensor] = None,
+    aff=(0.0, 1.0, 0.0, 1.0),
+    contrast: str = "log1p",
+    weighted: bool = False,
+    center: bool = True,
+    taps: Optional[tuple] = None,
+    window: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused two-channel spectral representation ``(B, L) -> (y1, y2)``.
+
+    One pass computes both channels of a stacked representation from one
+    windowed DFT; the complex spectrogram never reaches device memory:
+
+    - ``second="phase"`` (Polar): y1 = normalized mel / contrast magnitude,
+      y2 = normalized angle (``atan2``);
+    - ``second="if"`` (PolarIF): y2 = normalized instantaneous frequency,
+      the frame-local form of ``unwrap`` + the forward stencil (what
+      ``IF(method="forward")`` computes); ``weighted`` applies the parabolic
+      frame window;
+    - ``second="imag"`` (Cartesian): y1 = normalized real part, y2 =
+      normalized imaginary part (``mel_bank`` and ``contrast`` unused).
+
+    The nyquist bin's imaginary part is taken as 0 (its angle is 0 or pi).
+    ``aff = (off1, scale1, off2, scale2)``: the two normalizer affines,
+    floats or 0-d tensors on ``x``'s device.  ``mel_bank`` is the square
+    ``(n_bins, n_bins)`` bank or None.  ``taps`` / ``window`` select the
+    front end as in :func:`fused_melspec`; ``x`` may be int16 PCM.  Returns
+    float32 ``((B, T, n_bins), (B, T, n_bins))``; the nyquist drop and the
+    stacking are the caller's."""
+    if x.ndim == 1:
+        y1, y2 = fused_spectral_repr(x[None], n_fft, hop_length, second, mel_bank, aff, contrast,
+                                     weighted, center, taps, window)
+        return y1[0], y2[0]
+    if not x.is_cuda:
+        return fused_spectral_repr_reference(x, n_fft, hop_length, second, mel_bank, aff, contrast,
+                                             weighted, center, taps, window)
+    _check_repr(x, n_fft, hop_length, second, taps, window)
+    if second == "imag":
+        mel_bank, contrast = None, "none"
+    return _launch_repr(x, n_fft, hop_length, second, taps, window, contrast, weighted, center,
+                        False, mel_bank, aff)
+
+
+def fused_repr_stats(
+    x: torch.Tensor,
+    n_fft: int,
+    hop_length: int,
+    second: str,
+    contrast: str = "log1p",
+    weighted: bool = False,
+    center: bool = True,
+    taps: Optional[tuple] = None,
+    window: Optional[torch.Tensor] = None,
+) -> dict:
+    """One-pass fit statistics of both channels of :func:`fused_spectral_repr`.
+
+    Returns ``{"ch1": {...}, "ch2": {...}, "count"}``, each channel's dict
+    holding ``sum`` / ``sumsq`` (float64) and ``min`` / ``max`` as 0-d tensors
+    on ``x``'s device over the whole (batch, frames, bins) extraction, and
+    ``count`` as an exact Python int.  Channel 1 is what the transforms fit
+    on: the non-mel contrasted magnitude (``Magnitude.fit``) or the real
+    part; channel 2 the wrapped phase, the frame-local IF or the imaginary
+    part.  Deterministic: per-block partials reduced in a fixed order."""
+    if x.ndim == 1:
+        x = x[None]
+    x = x.reshape((-1, x.shape[-1]))
+    if not x.is_cuda:
+        return fused_repr_stats_reference(x, n_fft, hop_length, second, contrast, weighted, center,
+                                          taps, window)
+    _check_repr(x, n_fft, hop_length, second, taps, window)
+    if second == "imag":
+        contrast = "none"
+    s, count = _launch_repr(x, n_fft, hop_length, second, taps, window, contrast, weighted, center,
+                            True)
+
+    def chan(r0):
+        return {"sum": s[r0].sum(), "sumsq": s[r0 + 1].sum(),
+                "min": s[r0 + 2].min().float(), "max": s[r0 + 3].max().float()}
+
+    return {"ch1": chan(0), "ch2": chan(4), "count": count}

@@ -5,10 +5,11 @@ Twin of the JAX ``ops/griffinlim.py``; the algorithm is torchaudio's
 projections of the target magnitude with the momentum extrapolation of
 Perraudin et al.
 
-Two loops: the eager one (one ``istft`` + one ``stft`` per iteration) and the
-kernel loop, where each invocation of the fused step
+Three loops: the eager one (one ``istft`` + one ``stft`` per iteration); the
+kernel loop for a cosine-sum window, where each invocation of the fused step
 (``ops/cuda/glstep.py``) runs ``GL_CHAIN`` whole iterations and the remainder
-runs through the single-iteration step.
+runs through the single-iteration step; and the full-K kernel loop for any
+other window (the DGT's gaussian), one launch per iteration.
 """
 from __future__ import annotations
 
@@ -51,15 +52,30 @@ def griffin_lim(
     ``init_phase`` seeds the iteration with an explicit phase estimate instead
     of random or ones.  ``generator`` (on the magnitude's device) drives the
     random init; without one a generator seeded with 0 is used.  ``taps``
-    (cosine-sum coefficients of the synthesis window) enable the fused step.
+    (cosine-sum coefficients of the synthesis window) select the factored step.
 
-    ``fused=None`` takes the fused step when the magnitude lies on a CUDA
-    device and the shape is eligible (``gl_project_available``), else the
-    eager loop.  ``fused=True`` on an ineligible shape raises; on a CPU tensor
-    it runs the step's plain PyTorch version through the same chain /
-    remainder logic.  ``fused=False`` forces the eager loop.
+    Which kernel: a window with cosine-sum ``taps`` (hann, hamming, blackman)
+    takes the chunk-factored step (kernels C and D, ``gl_project_available``);
+    a window without them (``taps=None``: the DGT's gaussian) takes the full-K
+    step (kernel J, ``gl_fullk_available``), e.g. kaiser and bartlett too.
+    ``fused=None`` takes that kernel when the magnitude lies on a CUDA device
+    and the shape is eligible, else the eager loop.  ``fused=True`` on an
+    ineligible shape raises; on a CPU tensor it runs the step's plain PyTorch
+    version through the same loop.  ``fused=False`` forces the eager loop.
+
+    The boundary rule depends on the window.  The factored step re-frames
+    the un-trimmed overlap-add signal (the JAX kernel's rule), so its first
+    and last ``overlap - 1`` frames differ from the eager loop's; the full-K
+    step trims and reflect-pads as the eager loop does (``ops/cuda/glstep.py``
+    module note).  Both converge alike; neither is bit-equal to the other.
     """
-    from .cuda.glstep import gl_max_chain, gl_project_available, make_gl_momentum_step
+    from .cuda.glstep import (
+        gl_fullk_available,
+        gl_max_chain,
+        gl_project_available,
+        make_gl_momentum_step,
+        make_gl_momentum_step_fullk,
+    )
 
     dev = magnitude.device
     mom = momentum / (1.0 + momentum)
@@ -84,15 +100,16 @@ def griffin_lim(
     eligible = gl_project_available(n_fft, hop_length, taps)
     if eligible:
         chain_k = gl_max_chain(n_fft, hop_length, chain_k)  # the window must fit shared memory
+    fullk = not eligible and gl_fullk_available(n_fft, hop_length)
     if fused is None:
-        use_kernel = magnitude.is_cuda and eligible
+        use_kernel = magnitude.is_cuda and (eligible or fullk)
     else:
         use_kernel = bool(fused)
-        if use_kernel and not eligible:
+        if use_kernel and not (eligible or fullk):
             raise ValueError(
-                "fused=True requested but the Griffin-Lim kernel does not cover "
-                "this shape (needs cosine-sum taps, hop | n_fft, overlap <= 8, "
-                "hop % 32 == 0); use fused=None to fall back to the eager loop"
+                "fused=True requested but no Griffin-Lim kernel covers this shape "
+                "(needs hop | n_fft, overlap <= 8, hop % 32 == 0); use "
+                "fused=None to fall back to the eager loop"
             )
 
     if use_kernel and n_iter > 0:
@@ -100,15 +117,22 @@ def griffin_lim(
         T, F = magnitude.shape[-2:]
         mag3 = magnitude.reshape((-1, T, F))
         step = step_k = None
-        if chain_k >= 2:
+        if fullk:
+            chain_k = 1  # the full-K step has no chained form
+        elif chain_k >= 2:
             step_k, to_rows, from_rows = make_gl_momentum_step(
                 mag3, n_fft, hop_length, taps, window, mom, iters=chain_k
             )
         if chain_k < 2 or n_iter % chain_k:
             # built only when remainder (or unchained) steps will run
-            step, to_rows, from_rows = make_gl_momentum_step(
-                mag3, n_fft, hop_length, taps, window, mom
-            )
+            if fullk:
+                step, to_rows, from_rows = make_gl_momentum_step_fullk(
+                    mag3, n_fft, hop_length, window, mom
+                )
+            else:
+                step, to_rows, from_rows = make_gl_momentum_step(
+                    mag3, n_fft, hop_length, taps, window, mom
+                )
         carry = (
             to_rows(are.reshape((-1, T, F))),
             to_rows(aim.reshape((-1, T, F))),

@@ -8,7 +8,18 @@ from .base import (
 from .dgt import DGT
 from .norm import Normalize
 from .raw import Mono
-from .spectral_repr import Dummy, Magnitude
+from .spectral_repr import (
+    IF,
+    Cartesian,
+    Dummy,
+    Imaginary,
+    Magnitude,
+    Phase,
+    Polar,
+    PolarIF,
+    Real,
+    SpectralRepresentation,
+)
 from .stft import STFT
 
 __all__ = [
@@ -20,7 +31,15 @@ __all__ = [
     "STFT",
     "DGT",
     "Dummy",
+    "Real",
+    "Imaginary",
     "Magnitude",
+    "Phase",
+    "IF",
+    "SpectralRepresentation",
+    "Cartesian",
+    "Polar",
+    "PolarIF",
     "Normalize",
 ]
 
@@ -30,10 +49,6 @@ _UNPORTED = {
     "Stereo": "Queue 1 item 6", "MidSide": "Queue 1 item 6", "Window": "Queue 1 item 6",
     "MuLaw": "Queue 1 item 6", "Unsqueeze": "Queue 1 item 6", "Squeeze": "Queue 1 item 6",
     "Transpose": "Queue 1 item 6", "OneHot": "Queue 1 item 6", "MFCC": "Queue 1 item 7",
-    "Real": "Queue 1 item 8", "Imaginary": "Queue 1 item 8",
-    "Phase": "Queue 1 item 8", "IF": "Queue 1 item 8",
-    "SpectralRepresentation": "Queue 1 item 8", "Cartesian": "Queue 1 item 8",
-    "Polar": "Queue 1 item 8", "PolarIF": "Queue 1 item 8",
     "OverlapAdd": "Queue 1 item 9", "RealtimeSTFT": "Queue 1 item 9",
     "RealtimeDGT": "Queue 1 item 9",
 }

@@ -2,8 +2,10 @@
 
 Ported: forward, the complex least-squares inversion and the phaseless modes
 ``griffin_lim``, ``pghi``, ``pghi_bidir``, ``pghi_exact``, ``pghi_gl``,
-``random`` and ``keep_input``.  ``sinebank`` and ``RealtimeSTFT`` raise
-``NotImplementedError`` until their slice (ROADMAP Queue 1 items 8 and 9).
+``random`` and ``keep_input``; on a CUDA tensor ``griffin_lim`` and
+``pghi_gl`` run the Griffin-Lim kernels of ``ops/cuda/glstep.py``.
+``sinebank`` and ``RealtimeSTFT`` raise ``NotImplementedError`` until their
+slice (ROADMAP Queue 1 items 8 and 9).
 
 The PGHI modes work on any named window through its effective
 time-frequency ratio (``gamma``).  On a CUDA tensor ``pghi`` / ``pghi_bidir``
@@ -200,9 +202,9 @@ class STFT(AudioTransform):
         if mode == "pghi_exact":
             return self.invert(torch.polar(mag, self.pghi_exact(mag, tolerance=tolerance)))
         if mode == "pghi_gl":
-            # PGHI seeds the projection iteration.  A window without
-            # cosine-sum taps (the DGT's) runs the eager loop: the full-K
-            # Griffin-Lim kernel is not ported yet.
+            # PGHI seeds the projection iteration; on a CUDA tensor the loop
+            # runs the factored step for a cosine-sum window and the full-K
+            # step for any other (the DGT's gaussian), ops/griffinlim.py
             ph = self.pghi(mag, tolerance=tolerance, generator=generator, angles=angles)
             return self.griffin_lim(mag, init_phase=ph)
         if mode in ("keep_input", "random"):

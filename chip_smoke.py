@@ -4,12 +4,15 @@
     python3 chip_smoke.py [--batch 128] [--seconds 4.0] [--repeats 5]
 
 Builds the CUDA kernels from the sources in this checkout, holds each kernel
-against its plain PyTorch version on the card, drives two chains through the
+against its plain PyTorch version on the card, drives the chains through the
 public entry points at a real size (128 stereo clips of 4 s at 44.1 kHz by
 default): the flagship log-mel chain (fit -> fused forward -> Griffin-Lim
-invert) and the DGT magnitude chain (fit -> full-K fused forward -> PGHI
-invert).  It shows by the launch counters that each path went through its
-kernels, times them, and prints
+invert), the DGT magnitude chain (fit -> full-K fused forward -> PGHI invert,
+then the same magnitudes through ``pghi_gl``: PGHI seed and 30 full-K
+Griffin-Lim steps), the DGT + PolarIF representation chain (fit -> fused
+two-channel forward -> IF integration and inverse DGT) and STFT + Polar (fit
+-> fused forward).  It shows by the launch counters that each path went
+through its kernels, times them, and prints
 
 * a line with one JSON object ``{"kernels": [...]}`` (per kernel: launches on
   the main path, max error against the plain version, its time (``ms``, also
@@ -238,6 +241,61 @@ def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain
     return state, step1, step4, env
 
 
+def if_to_radians(d: torch.Tensor, weighted: bool) -> torch.Tensor:
+    """A difference of IF rows ``(B, T, F)`` (pre-affine units) as the
+    difference of the phase steps it is made of: rows over pi carry half a
+    step over pi, the last row half a step, row 0 the angle over pi; with the
+    parabolic window divided back out (its zero last row is left out)."""
+    T = d.shape[1]
+    c = torch.full((T,), 2.0 * math.pi, dtype=torch.float64, device=d.device)
+    c[0], c[-1] = math.pi, 2.0
+    if weighted:
+        n = torch.arange(T, dtype=torch.float64, device=d.device)
+        g = 1.5 * T / (T * T - 1.0) * (1 - ((n - (T / 2 - 1)) / (T / 2)) ** 2)
+        c = torch.where(g > 0, c / torch.where(g > 0, g, 1.0), 0.0)
+    return d.double() * c[None, :, None]
+
+
+def angle_error(second: str, a: torch.Tensor, b: torch.Tensor, scale: float, weighted: bool = False):
+    """Channel-2 difference of two normalized outputs as an angle on the
+    circle (radians): the phase itself, or the IF's phase steps."""
+    d = (a.double() - b.double()) * scale
+    if second == "if":
+        d = if_to_radians(d, weighted)
+    return torch.remainder(d + math.pi, 2 * math.pi).sub_(math.pi).abs_()
+
+
+def magnitude_weights(x: torch.Tensor, n_fft: int, hop: int, window: torch.Tensor, second: str):
+    """|X| / max|X| per clip (for the IF: of the quieter frame of each step)."""
+    from acids_transforms_tpu_torch.ops.fft import stft
+
+    m = stft(x, n_fft, hop, window).abs()
+    m = m / m.amax(dim=(-2, -1), keepdim=True).clamp_min(1e-30)
+    if second == "if":
+        m[:, 1:] = torch.minimum(m[:, 1:], m[:, :-1])
+    return m
+
+
+def check_channel2(label, second, y_k, y_p, scale, wt, weighted, tol_w, tol_loud):
+    """Channel 2 of a representation against a reference: the angle error
+    weighted by |X| / max|X| within tol_w, and unweighted at bins above 1e-3
+    of the clip's largest magnitude within tol_loud (radians)."""
+    if second == "imag":
+        e = rel_err(y_k, y_p)
+        log(f"    {label} ch2 (imag) rel {e:.3e} (tol {tol_w:g})")
+        require(e <= tol_w, f"{label}: channel 2 disagrees")
+        return e
+    err = angle_error(second, y_k, y_p, scale, weighted)
+    e_w = (err * wt).max().item()
+    loud = wt > 1e-3
+    e_l = err[loud].max().item()
+    log(f"    {label} ch2 ({second}) angle error weighted by |X| {e_w:.3e} (tol {tol_w:g}); "
+        f"at bins above 1e-3 of the largest ({100 * loud.float().mean().item():.1f}% of bins) "
+        f"{e_l:.3e} rad (tol {tol_loud:g})")
+    require(e_w <= tol_w and e_l <= tol_loud, f"{label}: channel 2 disagrees")
+    return e_w
+
+
 def unit_spec(mag: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
     """``mag * (cos, sin)(phase)`` over the clip's largest magnitude: what the
     synthesis reads of a phase, on the scale of the audio's error."""
@@ -365,6 +423,18 @@ def main() -> int:
             == glstep._smem_bytes(tile_t, chain, N_FFT // HOP, HOP),
             "GL shared-memory size: wrapper and source disagree",
         )
+    for n_fft_s, hop_s in ((N_FFT, HOP), (2048, 512), (4096, 1024)):
+        ov_s, f_s = n_fft_s // hop_s, n_fft_s // 2 + 1
+        for tile_t in spectral.TILES:
+            for st in (0, 1):
+                require(lib.att_repr_smem_bytes(tile_t, hop_s, ov_s, f_s, st)
+                        == spectral._repr_smem_bytes(tile_t, hop_s, ov_s, f_s, bool(st)),
+                        "representation shared-memory size: wrapper and source disagree")
+        for rows in (6, 7, 15, 16, 32):
+            kp = pghi_kernel._k_padded(f_s)
+            require(lib.att_gl_fullk_smem_bytes(rows, ov_s, hop_s, kp)
+                    == glstep._fullk_smem_bytes(rows, ov_s, hop_s, kp),
+                    "full-K GL shared-memory size: wrapper and source disagree")
 
     # ------------------------------------------------ 3. kernels vs plain
     log("[3] each kernel against its plain PyTorch version on the card")
@@ -502,6 +572,202 @@ def main() -> int:
         check_pghi(f"{n_fft}/{hop}", att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop, w_s,
                    dgt_gamma(n_fft), args.seed + n_fft + hop, errs)
     del holes
+
+    # G and H: the two-channel representation kernels (Polar "phase",
+    # PolarIF "if", Cartesian "imag"), factored (hann) and full-K (gaussian).
+    # Channel 1 as A and E (fp32 sums in another order than cuBLAS: 2e-5).
+    # Channel 2 as an angle: the spectrum's rounding turns a bin's angle by
+    # its error over the bin's own magnitude, so the angle error weighted by
+    # |X| / max|X| (the spectrum's relative error across the phase) is held
+    # to 1e-5, the budget of channel 1 (measured: 3e-7 at n_fft 1024, 1e-6
+    # at 2048 and 4096 where the factored front end adds hop-long chunk
+    # products), and unweighted at bins above 1e-3 of the largest to 1e-3 rad.
+    def check_repr(name, x, n_fft, hop, wname, second, bank, weighted=False):
+        _, taps, window = front_end(wname, n_fft)
+        key = "G" if taps is not None else "G_fk"
+        # the IF is held before a channel-2 offset: the output's float32
+        # resolution, divided by the parabolic window near its zeros, would
+        # otherwise exceed the angle's own error
+        aff = (0.0123, 2.345, 0.0 if second == "if" else -0.05, 1.3)
+        kw = dict(mel_bank=bank, aff=aff, weighted=weighted, taps=taps, window=window)
+        k1, k2 = spectral.fused_spectral_repr(x, n_fft, hop, second, **kw)
+        p1, p2 = spectral.fused_spectral_repr_reference(x, n_fft, hop, second, **kw)
+        torch.cuda.synchronize()
+        label = f"{key} {name} {second}{' weighted' if weighted else ''}{'' if bank is None else ' mel'}"
+        require(all(torch.isfinite(t).all().item() for t in (k1, k2)) and k1.shape == p1.shape
+                and k2.shape == p2.shape, f"{label}: bad output")
+        e1 = rel_err(k1, p1)
+        log(f"  {label}: ch1 rel {e1:.3e} (tol 2e-05), shapes {tuple(k1.shape)}")
+        require(e1 <= 2e-5, f"{label}: channel 1 disagrees with plain")
+        w_an = window if window is not None else get_window(wname, n_fft, device=dev)
+        wt = magnitude_weights(x, n_fft, hop, w_an, second)
+        check_channel2(label, second, k2, p2, aff[3], wt, weighted, 2e-5 if second == "imag" else 1e-5, 1e-3)
+        x16 = torch.round(x * 32767.0).to(torch.int16)
+        a16 = spectral.fused_spectral_repr(x16, n_fft, hop, second, **kw)
+        a32 = spectral.fused_spectral_repr(x16.to(torch.float32) * 2.0 ** -15, n_fft, hop, second, **kw)
+        require(all(torch.equal(u, v) for u, v in zip(a16, a32)), f"{label}: int16 input differs")
+        errs[key] = max(errs.get(key, 0.0), abs_err(k1, p1))
+        del k1, k2, p1, p2, wt
+
+    # H against the statistics of G's own (pre-affine, non-mel) channels: the
+    # same float32 values (up to an ulp where the compiler contracts the two
+    # kernels' arithmetic differently) summed in float64 in another order
+    # (1e-7 of the sum of |values|, extrema within 1e-6); and against its
+    # plain version: channel 1
+    # as B and F, channel 2 within the elementwise difference of the two
+    # versions' channels (a bin at the +-pi boundary may land on either side)
+    def check_repr_stats(name, x, n_fft, hop, wname, second, weighted=False):
+        _, taps, window = front_end(wname, n_fft)
+        key = "H" if taps is not None else "H_fk"
+        kw = dict(weighted=weighted, taps=taps, window=window)
+        s_k = spectral.fused_repr_stats(x, n_fft, hop, second, **kw)
+        s_p = spectral.fused_repr_stats_reference(x, n_fft, hop, second, **kw)
+        g_k = spectral.fused_spectral_repr(x, n_fft, hop, second, **kw)
+        g_p = spectral.fused_spectral_repr_reference(x, n_fft, hop, second, **kw)
+        torch.cuda.synchronize()
+        require(s_k["count"] == s_p["count"] == g_k[0].numel(), f"{key} {name}: count differs")
+        worst = 0.0
+        for i, ch in enumerate(("ch1", "ch2")):
+            v, vp = g_k[i].double(), g_p[i].double()
+            tot = v.abs().sum().item()
+            e_g = max(abs(s_k[ch]["sum"].item() - v.sum().item()) / tot,
+                      abs(s_k[ch]["sumsq"].item() - (v * v).sum().item()) / (v * v).sum().item())
+            ext_tol = 1e-6 * max(1.0, v.abs().max().item())
+            same_ext = max(abs(s_k[ch]["min"].item() - v.min().item()),
+                           abs(s_k[ch]["max"].item() - v.max().item())) <= ext_tol
+            d_sum = abs(s_k[ch]["sum"].item() - s_p[ch]["sum"].item())
+            d_sq = abs(s_k[ch]["sumsq"].item() - s_p[ch]["sumsq"].item())
+            d_min = abs(s_k[ch]["min"].item() - s_p[ch]["min"].item())
+            d_max = abs(s_k[ch]["max"].item() - s_p[ch]["max"].item())
+            if ch == "ch1" or second == "imag":
+                ok = (d_sum <= 1e-5 * tot and d_sq <= 1e-5 * (vp * vp).sum().item()
+                      and max(d_min, d_max) <= 1e-6 * max(1.0, v.abs().max().item()))
+                what = "1e-5 of the sums, 1e-6 on the extrema"
+            else:
+                slack = (v - vp).abs()
+                ok = (d_sum <= slack.sum().item() + 1e-6 * tot
+                      and d_sq <= (v * v - vp * vp).abs().sum().item() + 1e-6 * (vp * vp).sum().item()
+                      and max(d_min, d_max) <= max(slack.max().item(), 1e-6))
+                what = "the channels' elementwise differences"
+            log(f"  {key} {name} {second} {ch}: vs G's channels sums {e_g:.3e} (tol 1e-07), extrema "
+                f"{'within' if same_ext else 'NOT within'} {ext_tol:.1e}; vs plain sum {d_sum:.4g}, "
+                f"sumsq {d_sq:.4g}, min {d_min:.3e}, max {d_max:.3e} (tol: {what})")
+            require(e_g <= 1e-7 and same_ext, f"{key} {name}: statistics differ from G's channels")
+            require(ok, f"{key} {name} {ch}: statistics disagree with plain")
+            worst = max(worst, d_min, d_max)
+        errs[key] = max(errs.get(key, 0.0), worst)
+
+    mag_polar = T.Magnitude(mode="bipolar", contrast="log1p", mel=True, n_fft=N_FFT)
+    for wname in ("hann", "gaussian"):
+        for second in ("phase", "if", "imag"):
+            check_repr("main shape", mono, N_FFT, HOP, wname, second, None if second == "imag" else mag_polar.mel_bank)
+            check_repr_stats("main shape", mono, N_FFT, HOP, wname, second)
+        check_repr("main shape", mono, N_FFT, HOP, wname, "if", None, weighted=True)
+        check_repr("main shape", mono, N_FFT, HOP, wname, "phase", None)
+        check_repr_stats("main shape", mono, N_FFT, HOP, wname, "if", weighted=True)
+    # frame tiles of 32 (ragged T = 157 at 512/128), 16 (2048/512) and 8 (4096/1024)
+    for n_fft, hop in ((512, 128), (2048, 512), (4096, 1024)):
+        bank_s = T.Magnitude(mode="bipolar", n_fft=n_fft).mel_bank
+        for wname in ("hann", "gaussian"):
+            check_repr(f"{n_fft}/{hop}", rag, n_fft, hop, wname, "if", bank_s)
+            check_repr_stats(f"{n_fft}/{hop}", rag, n_fft, hop, wname, "phase")
+
+    # I: the projection alone.  It is the step kernel without its momentum
+    # update, so it must equal C's projection from tprev = 0 bit for bit;
+    # against the plain version interior frames within 1e-4, and (hann's edge
+    # frames are ill-conditioned, Queue 3) edge frames no further off the
+    # float64 oracle than 10 times the plain version is
+    def check_project(name, mag, n_fft, hop, wname, seed):
+        w_s = get_window(wname, n_fft, device=dev)
+        taps_s = taps_for_window(w_s)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        ph = 2 * math.pi * torch.rand(mag.shape, generator=g, device=dev)
+        are, aim = torch.cos(ph), torch.sin(ph)
+        rk = glstep.gl_project(mag, are, aim, n_fft, hop, taps_s, w_s)
+        rp = glstep.gl_project_reference(mag, are, aim, n_fft, hop, taps_s, w_s)
+        z = torch.zeros_like(mag)
+        step_c, _, _ = glstep.make_gl_momentum_step(mag, n_fft, hop, taps_s, w_s, 0.3)
+        c_out = step_c(are.contiguous(), aim.contiguous(), z, z)
+        env = glstep._env_rows(mag.shape[1], n_fft, hop, w_s)
+        oo = glstep.gl_momentum_step_oracle(mag[:16], are[:16], aim[:16], z[:16], z[:16], env,
+                                            n_fft, hop, taps_s, 0.3)
+        torch.cuda.synchronize()
+        m = n_fft // hop - 1
+        scale = max(rp[0].abs().max().item(), rp[1].abs().max().item())
+        e_in = max(abs_err(rk[i][:, m:-m], rp[i][:, m:-m]) for i in (0, 1)) / scale
+        sc16 = max(oo[2].abs().max().item(), oo[3].abs().max().item())
+        e_k = max((rk[i][:16].double() - oo[2 + i]).abs().max().item() for i in (0, 1)) / sc16
+        e_p = max((rp[i][:16].double() - oo[2 + i]).abs().max().item() for i in (0, 1)) / sc16
+        same = torch.equal(rk[0], c_out[2]) and torch.equal(rk[1], c_out[3])
+        log(f"  I {name} {wname}: interior vs plain {e_in:.3e} (tol 1e-04); every frame vs float64 "
+            f"oracle kernel {e_k:.3e}, plain {e_p:.3e} (tol {max(1e-4, 10 * e_p):.3g}); "
+            f"equal to C's projection from tprev = 0: {same}")
+        require(all(torch.isfinite(t).all().item() for t in rk), f"I {name}: not finite")
+        require(e_in <= 1e-4 and e_k <= max(1e-4, 10 * e_p) and same, f"I {name} disagrees")
+        errs["I"] = max(errs.get("I", 0.0), max(abs_err(rk[i][:, m:-m], rp[i][:, m:-m]) for i in (0, 1)))
+
+    check_project("main shape", gl_mag, N_FFT, HOP, "hann", args.seed + 31)
+    check_project("512/128", mag_rag, 512, 128, "hamming", args.seed + 32)
+
+    # J: the full-K momentum step under the DGT's gaussian (w >= 0.01, so
+    # every frame is well conditioned): against the plain version (fp32 sums
+    # in another order, 1e-4 of the projection's largest value, every frame)
+    # and the float64 oracle on 16 clips (1e-5); the new angles weighted by
+    # |u| / max|u| within 1e-4.  Then one step is one istft + stft of the
+    # eager loop (its boundary rule), and the shapes with other block sizes
+    # (blocks of 15 and 7 chunks, no multiple of 8, at 2048/256 and
+    # 4096/1024).  Under kaiser (another window without taps, w down to 5e-5
+    # at its edges) the same tolerances hold on every frame: the trimmed
+    # signal's samples all lie within hop / 2 of a frame's centre.
+    def check_fullk(name, mag, n_fft, hop, seed, w_s=None):
+        if w_s is None:
+            w_s = gaussian_dgt_window(n_fft, device=dev)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        ph = 2 * math.pi * torch.rand(mag.shape, generator=g, device=dev)
+        st = (torch.cos(ph), torch.sin(ph), 0.1 * mag * torch.randn(mag.shape, generator=g, device=dev),
+              0.1 * mag * torch.randn(mag.shape, generator=g, device=dev))
+        step, to_rows, _ = glstep.make_gl_momentum_step_fullk(mag, n_fft, hop, w_s, mom)
+        ko = step(*[to_rows(a) for a in st])
+        env = glstep._env_rows(mag.shape[1], n_fft, hop, w_s)
+        po = glstep.gl_momentum_step_fullk_reference(mag, *st, env, n_fft, hop, w_s, mom)
+        oo = glstep.gl_momentum_step_fullk_oracle(mag[:16], *[a[:16] for a in st], env, n_fft, hop, w_s, mom)
+        spec = torch.complex(mag[:16] * st[0][:16], mag[:16] * st[1][:16])
+        eager = att.ops.stft(istft(spec, n_fft, hop, w_s), n_fft, hop, w_s)
+        torch.cuda.synchronize()
+        scale = max(po[2].abs().max().item(), po[3].abs().max().item())
+        e_p = max(abs_err(ko[i], po[i]) for i in (2, 3)) / scale
+        sc16 = max(oo[2].abs().max().item(), oo[3].abs().max().item())
+        e_o = max((ko[i][:16].double() - oo[i]).abs().max().item() for i in (2, 3)) / sc16
+        e_e = max(abs_err(ko[2][:16], eager.real), abs_err(ko[3][:16], eager.imag)) / sc16
+        u = torch.sqrt((po[2] - mom * st[2]) ** 2 + (po[3] - mom * st[3]) ** 2)
+        wu = u / u.max()
+        e_a = max(((ko[i] - po[i]).abs() * wu).max().item() for i in (0, 1))
+        log(f"  J {name}: projection vs plain {e_p:.3e} (tol 1e-04), vs float64 oracle {e_o:.3e} "
+            f"(tol 1e-05), vs one eager istft + stft {e_e:.3e} (tol 1e-05); angles weighted by |u| "
+            f"{e_a:.3e} (tol 1e-04); block of {glstep._pick_fullk_rows(n_fft, hop)} (chunks, frames)")
+        require(all(torch.isfinite(t).all().item() for t in ko), f"J {name}: not finite")
+        require(e_p <= 1e-4 and e_o <= 1e-5 and e_e <= 1e-5 and e_a <= 1e-4, f"J {name} disagrees")
+        errs["J"] = max(errs.get("J", 0.0), max(abs_err(ko[i], po[i]) for i in (2, 3)))
+
+    check_fullk("main shape", att.ops.stft(mono, N_FFT, HOP, w_dgt).abs(), N_FFT, HOP, args.seed + 41)
+    w_kai = get_window("kaiser", N_FFT, device=dev)
+    require(taps_for_window(w_kai) is None, "kaiser must take the full-K step")
+    check_fullk("main shape, kaiser", att.ops.stft(mono, N_FFT, HOP, w_kai).abs(), N_FFT, HOP,
+                args.seed + 42, w_kai)
+    del w_kai
+    for n_fft, hop in ((512, 128), (1024, 128), (2048, 512), (2048, 256), (4096, 1024)):
+        require(glstep.gl_fullk_available(n_fft, hop), f"J must cover {n_fft}/{hop}")
+        w_s = gaussian_dgt_window(n_fft, device=dev)
+        check_fullk(f"{n_fft}/{hop}", att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop,
+                    args.seed + n_fft + hop)
+    # 4096/512: not even overlap + 2 chunks fit shared memory, so J raises
+    w_s = gaussian_dgt_window(4096, device=dev)
+    try:
+        glstep.make_gl_momentum_step_fullk(att.ops.stft(small, 4096, 512, w_s).abs(), 4096, 512, w_s, mom)
+    except NotImplementedError as exc:
+        log(f"  J 4096/512 on the card raises NotImplementedError: {str(exc)[:60]}...")
+    else:
+        raise SystemExit("FAILED: the full-K step at 4096/512 neither ran a kernel nor raised")
 
     # a shape whose narrowest tile exceeds shared memory is refused, not
     # quietly computed some other way
@@ -656,6 +922,153 @@ def main() -> int:
         f"{n_e}; eager pghi_scan + istft there {s_eager:.5f} (must be < {bound:.5f})")
     require(s_kernel_e < bound, "kernel PGHI converges worse than the eager scan")
     del ph_e, rec_e, rec_dgt
+
+    # ------------------------------------------ 4c. the DGT + PolarIF chain
+    log(f"[4c] chain R: Mono + DGT({N_FFT}, {HOP}) + PolarIF() (bipolar mel log1p magnitude, bipolar "
+        f"forward IF) on {B} stereo clips of {args.seconds:g} s")
+    del y_dgt
+    r_chain = T.Mono() + T.DGT(sr=SR, n_fft=N_FFT, hop_length=HOP) + T.PolarIF(sr=SR)
+    spectral.reset_launches()
+    glstep.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_fit = att.fuse_fit(r_chain)(audio)
+    y_r = att.fuse_forward(r_fit)(audio)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rec_r = r_fit.invert(y_r)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    r_counts = {**spectral.launches, **glstep.launches}
+    log(f"  fit + forward {1e3 * (t1 - t0):.1f} ms, invert (IF integration, polar, inverse DGT) "
+        f"{1e3 * (t2 - t1):.1f} ms; launches {r_counts}")
+    require(r_counts["fused_repr_stats_fullk"] == 1 and r_counts["fused_spectral_repr_fullk"] == 1
+            and sum(r_counts.values()) == 2, "chain R: expected one H and one G launch")
+    counts.update({k: r_counts[k] for k in ("fused_repr_stats_fullk", "fused_spectral_repr_fullk")})
+    require(tuple(y_r.shape) == (B, n_frames, 2, N_FFT // 2 + 1), f"chain R shape {tuple(y_r.shape)}")
+    require(torch.isfinite(y_r).all().item(), "chain R output not finite")
+    require(tuple(rec_r.shape) == (B, 1, HOP * (n_frames - 1)) and torch.isfinite(rec_r).all().item(),
+            f"chain R inverted audio {tuple(rec_r.shape)}")
+
+    def check_repr_chain(label, chain, fitted, y, second, window, fit_tol2):
+        """Fused fit and forward of a representation chain against the eager
+        chain: channel 1 and its normalizer as the magnitude chains (1e-5 of
+        the scale, 1e-4 relative); channel 2's normalizer within fit_tol2 of
+        its scale (its extrema are single bins at the +-pi boundary), and
+        channel 2 as an angle."""
+        eager_fit = chain.fit(audio)
+        for half, tol in (("magnitude", 1e-5), ("phase", fit_tol2)):
+            for name in ("offset", "scale"):
+                a = getattr(getattr(fitted[2], half).norm, name).item()
+                b = getattr(getattr(eager_fit[2], half).norm, name).item()
+                e = abs(a - b) / abs(getattr(eager_fit[2], half).norm.scale.item())
+                log(f"  fit {half}.{name}: kernel {a:.7g}, eager {b:.7g}, difference / scale {e:.3e} (tol {tol:g})")
+                require(e <= tol, f"{label}: fused fit {half}.{name} differs from chain.fit")
+        del eager_fit
+        y_e = fitted.forward(audio)
+        e1 = rel_err(y[..., 0, :], y_e[..., 0, :])
+        log(f"  fused forward vs eager chain.forward: ch1 rel {e1:.3e} (tol 1e-04)")
+        require(e1 <= 1e-4, f"{label}: channel 1 differs from chain.forward")
+        wt = magnitude_weights(fitted[0].forward(audio).squeeze(-2), N_FFT, HOP, window, second)
+        scale = fitted[2].phase.norm.scale.item()
+        tol_loud = 1e-3
+        if second == "if":
+            # the eager chain unwraps with a float32 cumulative sum of 2 pi
+            # steps, whose values reach |p| (ulp(|p|) of rounding per frame);
+            # the kernel's frame-local form has no such term
+            from acids_transforms_tpu_torch.ops.phase import unwrap
+
+            p_max = unwrap(torch.angle(fitted[1].forward(fitted[0].forward(audio)))).abs().max().item()
+            ulp = torch.finfo(torch.float32).eps * 2.0 ** math.floor(math.log2(p_max))
+            tol_loud = max(1e-3, 4.0 * ulp)
+            log(f"    the eager chain's unwrapped phases reach {p_max:.4g} rad (one float32 ulp "
+                f"{ulp:.3g}): tolerance {tol_loud:.3g} rad")
+        check_channel2(f"{label} fused vs eager", second, y[..., 1, :], y_e[..., 1, :], scale, wt, False,
+                       tol_loud, tol_loud)
+        return y_e
+
+    y_re = check_repr_chain("chain R", r_chain, r_fit, y_r, "if", w_dgt, 1e-4)
+    # the IF round trip: the phases integrated back from channel 2 against
+    # the DGT's own, weighted by |X| (an SNR over the complex spectrum), for
+    # the fused and the eager forward; and the audio against the input
+    spec_r = r_fit[1].forward(r_fit[0].forward(audio))
+
+    def if_phase_snr(y):
+        ph = r_fit[2].phase.invert(y[..., 1, :])
+        err = (spec_r.abs() * (torch.polar(torch.ones_like(ph), ph) - torch.exp(1j * torch.angle(spec_r))).abs())
+        return 10 * math.log10((spec_r.abs() ** 2).sum().item() / max((err ** 2).sum().item(), 1e-300))
+
+    snr_k, snr_e = if_phase_snr(y_r), if_phase_snr(y_re)
+    xm = r_fit[0].forward(audio)
+    e_audio = rel_err(rec_r.squeeze(-2), xm[..., : rec_r.shape[-1]])
+    e_audio_e = rel_err(r_fit.invert(y_re).squeeze(-2), xm[..., : rec_r.shape[-1]])
+    log(f"  IF round trip: phases back from channel 2 vs the DGT's, |X|-weighted SNR {snr_k:.2f} dB "
+        f"(eager chain {snr_e:.2f} dB, must be no worse than 0.5 dB below); audio rel {e_audio:.4f} "
+        f"(eager {e_audio_e:.4f}: the mel pseudo-inverse of the magnitude dominates)")
+    require(snr_k >= snr_e - 0.5 and e_audio <= 1.01 * e_audio_e + 1e-4, "chain R round trip worse than eager")
+    del spec_r, y_re, xm, rec_r
+
+    # ------------------------------------------------- 4d. STFT + Polar
+    log(f"[4d] STFT + Polar: Mono + STFT({N_FFT}, {HOP}, hann) + Polar() on {B} stereo clips")
+    p_chain = T.Mono() + T.STFT(sr=SR, n_fft=N_FFT, hop_length=HOP) + T.Polar(sr=SR)
+    spectral.reset_launches()
+    glstep.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_fit = att.fuse_fit(p_chain)(audio)
+    y_p = att.fuse_forward(p_fit)(audio)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    p_counts = {**spectral.launches, **glstep.launches}
+    log(f"  fit + forward {1e3 * (t1 - t0):.1f} ms; launches {p_counts}")
+    require(p_counts["fused_repr_stats"] == 1 and p_counts["fused_spectral_repr"] == 1
+            and sum(p_counts.values()) == 2, "STFT + Polar: expected one H and one G launch")
+    counts.update({k: p_counts[k] for k in ("fused_repr_stats", "fused_spectral_repr")})
+    require(tuple(y_p.shape) == (B, n_frames, 2, N_FFT // 2 + 1) and torch.isfinite(y_p).all().item(),
+            f"STFT + Polar output {tuple(y_p.shape)}")
+    check_repr_chain("STFT + Polar", p_chain, p_fit, y_p, "phase", stft_t.window, 1e-4)
+    del y_p
+
+    # -------------------------------------- 4e. D': pghi_gl through kernel J
+    log(f"[4e] D': the DGT chain's magnitudes inverted with pghi_gl (PGHI seed, "
+        f"{dgt_f.gl_iterations} full-K Griffin-Lim steps)")
+    y_dgt = att.fuse_forward(dgt_fit)(audio)
+    spectral.reset_launches()
+    glstep.reset_launches()
+    pghi_kernel.reset_launches()
+    draws = dgt_f._draws
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec_gl = dgt_fit.invert(y_dgt, inversion_mode="pghi_gl")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    gl_counts = {**glstep.launches, **pghi_kernel.launches}
+    gl_inv_ms = 1e3 * (t1 - t0)
+    log(f"  invert (pghi_gl) {gl_inv_ms:.1f} ms; launches {gl_counts}")
+    require(gl_counts["pghi_phases"] == 1 and gl_counts["gl_momentum_fullk"] == dgt_f.gl_iterations
+            and gl_counts["pghi_synthesize"] == 0, "D': expected 1 recurrence and 30 J launches")
+    counts["gl_momentum_fullk"] = gl_counts["gl_momentum_fullk"]
+    # I has no caller on any of the main paths: its launches there, all summed
+    counts["gl_project"] = sum(c["gl_project"] for c in (counts, dgt_counts, r_counts, p_counts, gl_counts))
+    require(counts["gl_project"] == 0, "gl_project was launched on a main path")
+    require(tuple(rec_gl.shape) == (B, 1, HOP * (n_frames - 1)) and torch.isfinite(rec_gl).all().item(),
+            f"pghi_gl audio {tuple(rec_gl.shape)}")
+    s_j = dgt_convergence(rec_gl.squeeze(-2), dgt_target)
+    # the eager loop from the same seed: the same PGHI phases (the generator
+    # the chain drew for them), then fused=False
+    ph0 = dgt_f.pghi(dgt_target, generator=torch.Generator(device=dev).manual_seed(dgt_f.seed + draws))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec_ge = dgt_f.griffin_lim(dgt_target, init_phase=ph0, fused=False)
+    torch.cuda.synchronize()
+    gl_eager_ms = 1e3 * (time.perf_counter() - t0)
+    s_e = dgt_convergence(rec_ge, dgt_target)
+    s_p = dgt_convergence(istft(torch.polar(dgt_target, ph0), N_FFT, HOP, dgt_f.inv_window), dgt_target)
+    bound = max(1.15 * s_e, s_e + 0.02)
+    log(f"  spectral convergence: pghi_gl through J {s_j:.5f}, eager loop from the same seed {s_e:.5f} "
+        f"({gl_eager_ms:.1f} ms), must be < {bound:.5f}; the PGHI seed alone {s_p:.5f}")
+    require(s_j < bound, "pghi_gl through J converges worse than the eager loop")
+    del rec_gl, rec_ge, ph0
 
     # ------------------------------------------------------------ 5. times
     log("[5] kernel times at the main-path shape (CUDA events, median of "
@@ -824,6 +1237,138 @@ def main() -> int:
              plain=lambda: pghi_kernel.pghi_synthesize_fused_reference(
                  dgt_target, k_phases, N_FFT, HOP, dgt_f.inv_window),
              library=lib_istft, bound=synth_bound, ceiling=ceiling_of(synth_flops + 40.0 * n_el)),
+    ]
+    # ---- the representation kernels.  G computes the Polar / PolarIF
+    # forward: what A and E need plus, per bin, an atan2 (about 20
+    # operations with its range reduction), the IF's wrap and scaling (about
+    # 8) and a second affine (2); it writes two channels.  H: the front end,
+    # |X| and log1p, the atan2 (and the IF's steps) and four statistics of
+    # each channel (8 operations per bin); it writes nothing of size.
+    p_rep, r_rep = p_fit[2], r_fit[2]
+    aff_p = (p_rep.magnitude.norm.offset, p_rep.magnitude.norm.scale, p_rep.phase.norm.offset,
+             p_rep.phase.norm.scale)
+    aff_r = (r_rep.magnitude.norm.offset, r_rep.magnitude.norm.scale, r_rep.phase.norm.offset,
+             r_rep.phase.norm.scale)
+    kw_g = dict(mel_bank=p_rep.magnitude.mel_bank, aff=aff_p, contrast="log1p", taps=taps_main)
+    kw_gk = dict(mel_bank=r_rep.magnitude.mel_bank, aff=aff_r, contrast="log1p", taps=None,
+                 window=dgt_f.window)
+    nnz_r = int((r_rep.magnitude.mel_bank != 0).sum().item())
+    g_need = fft_flops + B * Tn * (N_FFT + 7.0 * F + 2.0 * nnz_r + 22.0 * F)
+    gif_need = g_need + 8.0 * n_el
+    h_need = fft_flops + B * Tn * (N_FFT + 5.0 * F + 20.0 * F + 16.0 * F)
+    hif_need = h_need + 8.0 * n_el
+
+    def lib_polar():
+        S = torch.stft(mono, N_FFT, HOP, window=window, center=True, pad_mode="reflect",
+                       return_complex=True).transpose(-2, -1)
+        y1 = (torch.log1p(torch.matmul(S.abs(), kw_g["mel_bank"])) - aff_p[0]) / aff_p[1]
+        return y1, (torch.angle(S) - aff_p[2]) / aff_p[3]
+
+    def lib_if(S):
+        ph = torch.angle(S)
+        d = torch.remainder(ph[:, 1:] - ph[:, :-1] + math.pi, 2 * math.pi) - math.pi
+        v = torch.cat([ph[:, :1], 0.5 * d], dim=1)
+        return torch.cat([v[:, :-1] / math.pi, v[:, -1:]], dim=1)
+
+    def lib_polarif():
+        S = torch.stft(mono, N_FFT, HOP, window=dgt_f.window, center=True, pad_mode="reflect",
+                       return_complex=True).transpose(-2, -1)
+        y1 = (torch.log1p(torch.matmul(S.abs(), kw_gk["mel_bank"])) - aff_r[0]) / aff_r[1]
+        return y1, (lib_if(S) - aff_r[2]) / aff_r[3]
+
+    def lib_repr_stats(S, second):
+        v1 = torch.log1p(S.abs())
+        v2 = torch.angle(S) if second == "phase" else lib_if(S)
+        return [(v.sum(), (v * v).sum(), v.min(), v.max()) for v in (v1, v2)]
+
+    def lib_stats_polar():
+        return lib_repr_stats(torch.stft(mono, N_FFT, HOP, window=window, center=True, pad_mode="reflect",
+                                         return_complex=True).transpose(-2, -1), "phase")
+
+    def lib_stats_polarif():
+        return lib_repr_stats(torch.stft(mono, N_FFT, HOP, window=dgt_f.window, center=True,
+                                         pad_mode="reflect", return_complex=True).transpose(-2, -1), "if")
+
+    # I: the projection at the log-mel chain's shape (no main-path caller).
+    # Bytes: magnitudes and angles read, the projection written (5 arrays);
+    # operations: both FFTs, both windowings, the envelope, mag * angles.
+    i_state = (gl_state[0], gl_state[1])
+    i_bytes = 5.0 * 4 * B * Tn * F + 4.0 * (Tn + ov - 1) * HOP
+    i_need = 2 * fft_flops + B * Tn * (3.0 * N_FFT + 2.0 * F)
+
+    def lib_project():
+        sig = torch.istft((gl_mag * torch.complex(*i_state)).transpose(-2, -1), N_FFT, HOP, window=window)
+        return torch.stft(sig, N_FFT, HOP, window=window, center=True, pad_mode="reflect",
+                          return_complex=True)
+
+    # J at the D' shape: the DGT target magnitudes and a random state;
+    # bytes and operations as C's (nine arrays; two FFTs and the momentum).
+    # Its design runs, per block of R chunks and tile_t frames, the
+    # synthesis product (R chunks x overlap x Kp x hop) and the analysis
+    # product (tile_t frames x n_fft x 2 x 128-column tiles).
+    jg = torch.Generator(device=dev).manual_seed(args.seed + 51)
+    jph = 2 * math.pi * torch.rand(dgt_target.shape, generator=jg, device=dev)
+    j_st = (torch.cos(jph), torch.sin(jph), torch.zeros_like(jph), torch.zeros_like(jph))
+    del jph
+    jstep, _, _ = glstep.make_gl_momentum_step_fullk(dgt_target, N_FFT, HOP, dgt_f.inv_window, mom)
+    j_env = glstep._env_rows(Tn, N_FFT, HOP, dgt_f.inv_window)
+    j_rows, j_tile = glstep._pick_fullk_rows(N_FFT, HOP)
+    j_blocks = B * -(-Tn // j_tile)
+    j_flops = 2.0 * j_blocks * (j_rows * ov * pghi_kernel._k_padded(F) * HOP
+                                + j_tile * N_FFT * 2 * 128 * -(-F // 128)) + 10.0 * n_el
+
+    def lib_gl_fullk():
+        a = torch.complex(j_st[0], j_st[1])
+        sig = torch.istft((dgt_target * a).transpose(-2, -1), N_FFT, HOP, window=dgt_f.inv_window)
+        reb = torch.stft(sig, N_FFT, HOP, window=dgt_f.inv_window, center=True, pad_mode="reflect",
+                         return_complex=True).transpose(-2, -1)
+        u = reb - mom * torch.complex(j_st[2], j_st[3])
+        return u / u.abs().clamp_min(1e-16), reb
+
+    spectral_src = "acids_transforms_tpu_torch/csrc/spectral.cu"
+    specs += [
+        dict(key="G", name="fused_spectral_repr", source=spectral_src,
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:869",
+             launches=counts["fused_spectral_repr"],
+             run=lambda: spectral.fused_spectral_repr(mono, N_FFT, HOP, "phase", **kw_g),
+             plain=lambda: spectral.fused_spectral_repr_reference(mono, N_FFT, HOP, "phase", **kw_g),
+             library=lib_polar, bound=bound_of(4.0 * B * L + 8.0 * n_el, g_need),
+             ceiling=ceiling_of(chunk_flops + combine_flops + 2.0 * B * Tn * nnz_r + 30.0 * n_el)),
+        dict(key="G_fk", name="fused_spectral_repr_fullk", source=spectral_src,
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:851",
+             launches=counts["fused_spectral_repr_fullk"],
+             run=lambda: spectral.fused_spectral_repr(mono, N_FFT, HOP, "if", **kw_gk),
+             plain=lambda: spectral.fused_spectral_repr_reference(mono, N_FFT, HOP, "if", **kw_gk),
+             library=lib_polarif, bound=bound_of(4.0 * B * L + 8.0 * n_el, gif_need),
+             ceiling=ceiling_of(fullk_flops * (Tn + 1) / Tn + 2.0 * B * Tn * nnz_r + 38.0 * n_el)),
+        dict(key="H", name="fused_repr_stats", source=spectral_src,
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:938",
+             launches=counts["fused_repr_stats"],
+             run=lambda: spectral.fused_repr_stats(mono, N_FFT, HOP, "phase", taps=taps_main),
+             plain=lambda: spectral.fused_repr_stats_reference(mono, N_FFT, HOP, "phase", taps=taps_main),
+             library=lib_stats_polar, bound=bound_of(4.0 * B * L, h_need),
+             ceiling=ceiling_of(chunk_flops + combine_flops + 36.0 * n_el)),
+        dict(key="H_fk", name="fused_repr_stats_fullk", source=spectral_src,
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:916",
+             launches=counts["fused_repr_stats_fullk"],
+             run=lambda: spectral.fused_repr_stats(mono, N_FFT, HOP, "if", taps=None, window=dgt_f.window),
+             plain=lambda: spectral.fused_repr_stats_reference(mono, N_FFT, HOP, "if", taps=None,
+                                                               window=dgt_f.window),
+             library=lib_stats_polarif, bound=bound_of(4.0 * B * L, hif_need),
+             ceiling=ceiling_of(fullk_flops * (Tn + 1) / Tn + 44.0 * n_el)),
+        dict(key="I", name="gl_project", source="acids_transforms_tpu_torch/csrc/glstep.cu",
+             replaces="acids_transforms_tpu/ops/pallas/glstep.py:236",
+             launches=counts["gl_project"],
+             run=lambda: glstep.gl_project(gl_mag, *i_state, N_FFT, HOP, taps_main, window),
+             plain=lambda: glstep.gl_project_reference(gl_mag, *i_state, N_FFT, HOP, taps_main, window),
+             library=lib_project, bound=bound_of(i_bytes, i_need), ceiling=ceiling_of(gl_flops - 10.0 * n_el)),
+        dict(key="J", name="gl_momentum_fullk", source="acids_transforms_tpu_torch/csrc/glstep_fullk.cu",
+             replaces="acids_transforms_tpu/ops/pallas/glstep.py:571",
+             launches=counts["gl_momentum_fullk"],
+             run=lambda: jstep(*j_st),
+             plain=lambda: glstep.gl_momentum_step_fullk_reference(dgt_target, *j_st, j_env, N_FFT, HOP,
+                                                                   dgt_f.inv_window, mom),
+             library=lib_gl_fullk, bound=bound_of(gl_bytes, gl_need), ceiling=ceiling_of(j_flops)),
     ]
     kernels = []
     for s in specs:

@@ -254,9 +254,13 @@ def test_kernel_loop_chain_and_remainder_logic(monkeypatch, state):
     calls.clear()
     pgl_mod.griffin_lim(m, N_FFT, HOP, wt, n_iter=2, init_phase=ph, taps=taps)  # auto on the CPU: eager
     assert calls == []
+    # without taps the full-K step (kernel J) takes the shape, not this one;
+    # a shape no step covers raises
+    rec = pgl_mod.griffin_lim(m, N_FFT, HOP, wt, n_iter=2, init_phase=ph, taps=None, fused=True)
+    assert calls == [] and rec.shape == (2, HOP * (mag.shape[1] - 1))
     with pytest.raises(ValueError, match="fused=True"):
-        pgl_mod.griffin_lim(m, N_FFT, HOP, wt, n_iter=2, init_phase=ph, taps=None, fused=True)
-    assert pk.launches == {"gl_momentum_step": 0, "gl_momentum_chain": 0}  # nothing launched on the CPU
+        pgl_mod.griffin_lim(m[..., :129], 256, 48, torch.ones(256), n_iter=2, taps=None, fused=True)
+    assert all(v == 0 for v in pk.launches.values())  # nothing launched on the CPU
 
 
 def test_kernel_loop_vs_jax_kernel_loop_and_eager_loop(state):

@@ -27,7 +27,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import acids_transforms_tpu_torch as att\n"
         "import acids_transforms_tpu_torch.ops.cuda.spectral, acids_transforms_tpu_torch.ops.cuda.glstep\n"
         "import acids_transforms_tpu_torch.ops.cuda.pghi_kernel, acids_transforms_tpu_torch.ops.pghi\n"
-        "import acids_transforms_tpu_torch.transforms.dgt\n"
+        "import acids_transforms_tpu_torch.transforms.dgt, acids_transforms_tpu_torch.ops.phase\n"
+        "import acids_transforms_tpu_torch.transforms.spectral_repr\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'jaxlib' or m.startswith('acids_transforms_tpu.') or m == 'acids_transforms_tpu']\n"
         "assert not bad, bad\n"
@@ -104,8 +105,9 @@ def test_chip_smoke_refuses_to_run_without_a_card():
 
 def test_kernel_sources_are_in_the_package():
     names = {p.name for p in (PORT / "csrc").iterdir()}
-    assert {"spectral.cu", "glstep.cu", "pghi.cu", "dft_common.cuh", "synth_ola.cuh"} <= names
-    for name in ("spectral.cu", "glstep.cu", "pghi.cu"):
+    assert {"spectral.cu", "glstep.cu", "glstep_fullk.cu", "pghi.cu", "dft_common.cuh",
+            "synth_ola.cuh"} <= names
+    for name in ("spectral.cu", "glstep.cu", "glstep_fullk.cu", "pghi.cu"):
         text = (PORT / "csrc" / name).read_text()
         assert "Replaces" in text and "What bounds" in text and "Design" in text
 
@@ -127,3 +129,29 @@ def test_pghi_entry_points_default_to_the_card():
     ph = pk.pghi_phases_fused(mag, 1000.0, 512, 128)
     assert ph.shape == mag.shape and ph.device.type == "cpu"
     assert pk.launches == {"pghi_phases": 0, "pghi_synthesize": 0}
+
+
+def test_representation_entry_points_default_to_the_card():
+    """The representation classes run on the card unless asked otherwise, and
+    the new kernel wrappers (G, H, I, J) take their plain versions only
+    because the tensor lies on the CPU: no launch is counted."""
+    import torch
+
+    from acids_transforms_tpu_torch import transforms as T
+    from acids_transforms_tpu_torch.ops.cuda import glstep as gk
+    from acids_transforms_tpu_torch.ops.cuda import spectral as sk
+
+    if not torch.cuda.is_available():
+        for build in (lambda: T.Polar(), lambda: T.PolarIF(),
+                      lambda: T.Cartesian(), lambda: T.Phase(), lambda: T.IF()):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                build()
+    x = torch.zeros(1, 3000)
+    y1, y2 = sk.fused_spectral_repr(x, 512, 128, "if", taps=(0.5, -0.25))
+    assert y1.device.type == "cpu" and y2.shape == (1, 24, 257)
+    sk.fused_repr_stats(x, 512, 128, "phase", taps=(0.5, -0.25))
+    mag = torch.rand(1, 8, 257)
+    gk.gl_project(mag, torch.ones_like(mag), torch.zeros_like(mag), 512, 128, (0.5, -0.25), torch.hann_window(512))
+    step, to_rows, _ = gk.make_gl_momentum_step_fullk(mag, 512, 128, torch.ones(512), 0.5)
+    step(*[to_rows(a) for a in (torch.ones_like(mag), torch.zeros_like(mag), mag, mag)])
+    assert all(v == 0 for v in sk.launches.values()) and all(v == 0 for v in gk.launches.values())

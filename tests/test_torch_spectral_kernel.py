@@ -199,7 +199,9 @@ def test_dispatch_gates_and_explicit_kernel_request():
     only_stft = chains()[1][1]
     assert patt.fuse_forward(only_stft) == only_stft.forward  # unmatched: chain.forward
     assert set(pk.launches) == {"fused_melspec", "fused_melspec_stats", "fused_melspec_fullk",
-                                "fused_melspec_stats_fullk"}
+                                "fused_melspec_stats_fullk", "fused_spectral_repr",
+                                "fused_spectral_repr_fullk", "fused_repr_stats",
+                                "fused_repr_stats_fullk"}
     assert not any(pk.launches.values())                 # nothing launched on the CPU
 
 

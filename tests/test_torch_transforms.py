@@ -104,7 +104,7 @@ def test_stft_modes_and_unported_raise():
         PT.STFT(inversion_mode="no_such_mode", device="cpu")
     pt.set_params(256, 64)
     assert pt.window.shape == (256,) and pt._window_taps is not None
-    for name in ("RealtimeDGT", "MFCC", "RealtimeSTFT", "Polar", "MuLaw", "OverlapAdd"):
+    for name in ("RealtimeDGT", "MFCC", "RealtimeSTFT", "MidSide", "MuLaw", "OverlapAdd"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             getattr(PT, name)
     assert issubclass(PT.DGT, PT.STFT)
