@@ -17,11 +17,18 @@ leaves only); ``offset``, ``scale`` (Normalize); the pairs ``Polar``,
 ``phase.`` (``"<i>.magnitude.mel_bank"``, ``"<i>.magnitude.norm.offset"``,
 ``"<i>.phase.norm.scale"``, ...); and the flags ``"<i>.needs_scaling"`` and
 ``"<i>.norm.needs_scaling"`` (``"<i>.phase.norm.needs_scaling"`` in a pair),
-0 or 1.  An unnormalized half (``Dummy``) has no leaves.
+0 or 1.  An unnormalized half (``Dummy``) has no leaves.  Streaming chains
+(``OverlapAdd``, ``RealtimeSTFT``, ``RealtimeDGT``) have window leaves only.
+
+:func:`load_jax_stream_state` carries a streaming session across: the state
+that the JAX package's ``chain.init_state`` / ``scan_forward`` return (one
+entry per child, a dict of arrays or ``None``), given as numpy arrays, becomes
+the port's, so ``streaming.scan_forward(..., state=...)`` resumes a session
+the JAX package started.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -30,7 +37,7 @@ from .transforms.base import AudioTransform, ComposeAudioTransform
 from .transforms.norm import Normalize
 from .transforms.stft import STFT
 
-__all__ = ["load_jax_state", "state_from_leaves"]
+__all__ = ["load_jax_state", "load_jax_stream_state", "state_from_leaves"]
 
 
 def state_from_leaves(children: Sequence[Mapping[str, object]]) -> Dict[str, np.ndarray]:
@@ -99,3 +106,48 @@ def load_jax_state(port_chain: AudioTransform, state: Mapping[str, np.ndarray]) 
         if isinstance(child, STFT) and id(child) in touched:
             child._refresh_taps()
     return port_chain
+
+
+def load_jax_stream_state(
+    port_chain: AudioTransform, state: Sequence[Optional[Mapping[str, np.ndarray]]]
+) -> List[Optional[Dict[str, torch.Tensor]]]:
+    """The port's streaming state for ``port_chain`` from a JAX session's.
+
+    ``state`` holds one entry per child of the chain, as the JAX chain's
+    ``init_state`` / ``scan_forward`` return it: a mapping of leaf name to
+    array (``input_buffer`` / ``output_buffer`` of OverlapAdd, the carry of a
+    ``Realtime*`` transform) or ``None`` for a stateless child.  Arrays land on
+    the chain's device as float32.  Raises when the number of entries, the
+    keys or the trailing (non-batch) shapes do not match the state the port
+    chain allocates itself."""
+    children = (
+        list(port_chain.transforms)
+        if isinstance(port_chain, ComposeAudioTransform)
+        else [port_chain]
+    )
+    if len(state) != len(children):
+        raise ValueError("the state has %d entries, the chain %d children" % (len(state), len(children)))
+    out: List[Optional[Dict[str, torch.Tensor]]] = []
+    for i, (child, entry) in enumerate(zip(children, state)):
+        if entry is None:
+            if child.init_state(()) is not None:
+                raise ValueError("entry %d is None but %s is stateful" % (i, type(child).__name__))
+            out.append(None)
+            continue
+        arrays = {k: np.asarray(v) for k, v in entry.items()}
+        batch_shape = next(iter(arrays.values())).shape[:-1] if arrays else ()
+        template = child.init_state(batch_shape)
+        if template is None or set(template) != set(arrays):
+            raise ValueError(
+                "entry %d has keys %s, %s allocates %s"
+                % (i, sorted(arrays), type(child).__name__, None if template is None else sorted(template))
+            )
+        conv = {}
+        for k, v in arrays.items():
+            t = torch.as_tensor(np.array(v, dtype=np.float32), device=child.device)
+            if tuple(t.shape[-1:]) != tuple(template[k].shape[-1:]):
+                raise ValueError("entry %d.%s: shape %s does not fit the port's %s"
+                                 % (i, k, tuple(t.shape), tuple(template[k].shape)))
+            conv[k] = t
+        out.append(conv)
+    return out

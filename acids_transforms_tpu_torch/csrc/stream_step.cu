@@ -1,0 +1,453 @@
+// Whole-session streaming kernels of [OverlapAdd, RealtimeSTFT-family] chains
+// for Hopper (sm_90a).
+//
+// Replaces, from the JAX package's ops/pallas/stream_step.py:
+//   session_encode_kernel            <- _session_forward_kernel        (make_fused_forward_session)
+//   session_roundtrip_kernel<., 0>   <- _session_kernel                (make_fused_roundtrip)
+//   session_roundtrip_kernel<., 1>   <- _session_random_kernel         (make_fused_random_roundtrip)
+//   session_decode_kernel            <- _session_random_invert_kernel  (make_fused_random_invert)
+//
+// What they compute.  A fresh session's frames are the contiguous slices
+// [t hop, t hop + n_fft) of the row-padded signal: (overlap - 1) hop zero
+// samples of initial ring, the signal, zeros to the end (frame t < n_frames).
+// Its output is the plain overlap-add of all synthesis frames at hop stride,
+// cut at n_frames hop samples: output chunk j (hop samples) is the sum of
+// piece i of frame j - i over i < overlap, frames before 0 are zero (the
+// initial OLA tail) and frames past the last are dropped.  So the carried ring
+// and OLA tail of the chunked loop are gone: blocks over (stream, tile of
+// output chunks) are independent.  The TPU kernels walk the chunks in a
+// sequential grid and carry the OLA tail in scratch; here a block recomputes
+// the overlap - 1 frames before its tile instead (its halo).
+//
+// Encode: every frame's windowed DFT, written as interleaved (re, im), so the
+// caller views the output as complex with no copy.  Roundtrip: the analysis of
+// the R + overlap - 1 frames that cover a block's R output chunks into
+// [re | im] rows in shared memory (for the random mode: |X| times (cos, sin)
+// of the session's angles, read in), then the synthesis product of
+// synth_ola.cuh over those rows, with the synthesis window and the 1 / gain of
+// OverlapAdd folded into its basis.  Decode: the rows are mag * (cos, sin)
+// (angle) of the input, then the same synthesis.
+//
+// What bounds them on this card: the functions are bound by bytes (an FFT
+// per frame is 2.5 n_fft log2 n_fft operations, far below the fp32 ridge of
+// 20 flop per byte).  This design is not: it keeps the TPU kernels' full-length
+// products, n_fft * F multiply-adds per frame and direction (cos and sin),
+// about 1 M at n_fft 1024, so its own ceiling is the card's fp32 FMA rate.
+//
+// Design.  The analysis is the full-K product of dft_common.cuh for every
+// window (the DGT's gaussian has no cosine taps, and one design covers both
+// RealtimeSTFT and RealtimeDGT), written with its own epilogue: a block's
+// frames (at most 40) are rows of a shared-memory sample buffer at stride hop,
+// 128-bin column tiles, the window-folded basis (n_fft rounded up to 32 rows,
+// zero rows below) staged through shared memory 32 rows ahead of the
+// multiply-adds, a thread's 5 rows x 4 bins x (re, im) in registers, summed in
+// partial sums of 128 terms (kSumFold below; the synthesis likewise).  The
+// encode stores its sums straight to device memory; the roundtrip into the
+// [re | im] rows of the synthesis (row stride Kp, zero columns 2F .. Kp).  At
+// n_fft 1024, hop 256 a roundtrip block owns 32 chunks: samples 38 KB, rows of
+// 35 frames 148 KB, staging 32 KB, one block of 8 warps per SM.  Samples are
+// read from the signal with bounds checks (the zero ring and tail are never
+// materialized).  Arithmetic is fp32 FMA with fp32 accumulation; sincosf is
+// the full-range function (no --use_fast_math).
+#include <math.h>
+
+#include "dft_common.cuh"
+#include "synth_ola.cuh"
+
+namespace att {
+
+constexpr int kStageFloats = 2 * kKC * kColTile;  // == kSynKC * kSynCols: one area for both phases
+// Partial sums: both products add up long runs of terms that cancel, and one
+// running sum over them rounds further from exact than the generic scan's
+// cuBLAS products (the synthesis there is two products of F terms each).
+// Measured on an H100 at 1024/256: one running sum in the synthesis gave the
+// complex roundtrip 118.8 dB against the generic scan's 127.3 dB (64
+// sessions), partial sums of 256 terms there 127.9 dB; with the analysis still
+// one running sum of n_fft terms, RealtimeDGT at 8 sessions reached 127.4 dB
+// against 132.1 dB.  So each product sums kSumFold staged chunks of 32 terms
+// at a time and adds that partial sum to its total.
+constexpr int kSumFold = 4;
+static_assert(kStageFloats == kSynKC * kSynCols, "analysis and synthesis share the staging area");
+
+struct SessionArgs {
+    const float* x;       // (B, L) signal (encode, roundtrips)
+    const float* mag;     // (B, T, F) magnitudes (decode)
+    const float* angles;  // (B, Ta, F) session angles (random modes)
+    const float* wc;      // (Kn, F) window-folded analysis basis, cos; zero rows past n_fft
+    const float* ws;      //                                      -sin
+    const float* syn;     // (overlap, Kp, hop) synthesis basis [A; B; 0] * inv_window / gain
+    float* out;           // encode: (B, T, F, 2); roundtrip: (B, T hop); decode: (B, T hop)
+    long long L;
+    int T, Ta, F, hop, overlap, Kn, Kp, rows, n_tiles;
+};
+
+// xs[i] = padded[p0 + i] for i < n, where padded is (overlap - 1) hop zeros,
+// then the signal x_row of L samples, then zeros.  Ends with a barrier.
+__device__ void load_session_samples(const float* __restrict__ x_row, long long L, long long p0,
+                                     int lead, int n, float* xs) {
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+        const long long s = p0 + i - lead;
+        xs[i] = (s >= 0 && s < L) ? __ldg(x_row + s) : 0.0f;
+    }
+    __syncthreads();
+}
+
+// Full-K windowed DFT of n_rows <= kMaxRows frames held in shared memory:
+// frame r is xs[r hop, r hop + Kn) (samples past n_fft meet zero basis rows).
+// emit(r, k, re, im) for every r < n_rows, k < F.  Starts and ends with a
+// barrier, so xs may be written right before and the emitted values read
+// right after.
+template <typename Emit>
+__device__ void fullk_analysis(const float* xs, int n_rows, int hop, int Kn, int F,
+                               const float* __restrict__ wc, const float* __restrict__ ws,
+                               float* stage, Emit emit) {
+    const int tid = threadIdx.x;
+    const int tx = tid & 31;
+    const int ty = tid >> 5;
+    constexpr int RPT = kMaxRows / 8;  // rows per thread
+    int rows[RPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+        const int r = ty * RPT + i;
+        rows[i] = r < n_rows ? r : n_rows - 1;
+    }
+    // a warp whose rows all lie past n_rows only helps staging the basis
+    const bool warp_active = ty * RPT < n_rows;
+    float* Bc = stage;
+    float* Bsn = stage + kKC * kColTile;
+    constexpr int kRowsPer = kKC * kColTile / kThreads;
+    constexpr int kRowStep = kThreads / kColTile;
+    const int stage_c = tid % kColTile;
+    const int stage_r = tid / kColTile;
+    const int n_ct = (F + kColTile - 1) / kColTile;
+    for (int ct = 0; ct < n_ct; ++ct) {
+        const int k_stage = ct * kColTile + stage_c;
+        const bool stage_ok = k_stage < F;
+        const size_t col = stage_ok ? (size_t)k_stage : 0;
+        // totals, and the partial sums of the current kSumFold chunks
+        float acc_re[RPT][4], acc_im[RPT][4], part_re[RPT][4], part_im[RPT][4];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+                acc_re[i][q] = 0.0f;
+                acc_im[i][q] = 0.0f;
+                part_re[i][q] = 0.0f;
+                part_im[i][q] = 0.0f;
+            }
+        }
+        // a thread stages one basis column over every second row of a chunk;
+        // the next chunk is loaded into registers before this one is used
+        float vc[kRowsPer], vs[kRowsPer];
+        auto fetch = [&](int n0) {
+#pragma unroll
+            for (int i = 0; i < kRowsPer; ++i) {
+                const size_t o = (size_t)(n0 + stage_r + i * kRowStep) * F + col;
+                vc[i] = __ldg(wc + o);
+                vs[i] = __ldg(ws + o);
+            }
+        };
+        fetch(0);
+        for (int n0 = 0; n0 < Kn; n0 += kKC) {
+            __syncthreads();  // previous chunk (or the caller's samples) done
+#pragma unroll
+            for (int i = 0; i < kRowsPer; ++i) {
+                const int kk = stage_r + i * kRowStep;
+                Bc[kk * kColTile + stage_c] = stage_ok ? vc[i] : 0.0f;
+                Bsn[kk * kColTile + stage_c] = stage_ok ? vs[i] : 0.0f;
+            }
+            __syncthreads();
+            if (n0 + kKC < Kn) fetch(n0 + kKC);
+            if (!warp_active) continue;
+            const int done = n0 / kKC + 1;  // chunks summed after this one
+#pragma unroll 2
+            for (int kk = 0; kk < kKC; kk += 4) {
+                float4 a[RPT];
+#pragma unroll
+                for (int i = 0; i < RPT; ++i) {
+                    a[i] = *reinterpret_cast<const float4*>(xs + (size_t)rows[i] * hop + n0 + kk);
+                }
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    const float4 bc = *reinterpret_cast<const float4*>(Bc + (kk + u) * kColTile + tx * 4);
+                    const float4 bs = *reinterpret_cast<const float4*>(Bsn + (kk + u) * kColTile + tx * 4);
+#pragma unroll
+                    for (int i = 0; i < RPT; ++i) {
+                        const float av = u == 0 ? a[i].x : (u == 1 ? a[i].y : (u == 2 ? a[i].z : a[i].w));
+                        part_re[i][0] = fmaf(av, bc.x, part_re[i][0]);
+                        part_re[i][1] = fmaf(av, bc.y, part_re[i][1]);
+                        part_re[i][2] = fmaf(av, bc.z, part_re[i][2]);
+                        part_re[i][3] = fmaf(av, bc.w, part_re[i][3]);
+                        part_im[i][0] = fmaf(av, bs.x, part_im[i][0]);
+                        part_im[i][1] = fmaf(av, bs.y, part_im[i][1]);
+                        part_im[i][2] = fmaf(av, bs.z, part_im[i][2]);
+                        part_im[i][3] = fmaf(av, bs.w, part_im[i][3]);
+                    }
+                }
+            }
+            if (done % kSumFold == 0 || done * kKC == Kn) {
+#pragma unroll
+                for (int i = 0; i < RPT; ++i) {
+#pragma unroll
+                    for (int q = 0; q < 4; ++q) {
+                        acc_re[i][q] += part_re[i][q];
+                        acc_im[i][q] += part_im[i][q];
+                        part_re[i][q] = 0.0f;
+                        part_im[i][q] = 0.0f;
+                    }
+                }
+            }
+        }
+        if (warp_active) {
+#pragma unroll
+            for (int i = 0; i < RPT; ++i) {
+                const int r = ty * RPT + i;
+                if (r >= n_rows) continue;
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    const int k = ct * kColTile + tx * 4 + q;
+                    if (k < F) emit(r, k, acc_re[i][q], acc_im[i][q]);
+                }
+            }
+        }
+    }
+    __syncthreads();
+}
+
+__host__ __device__ inline size_t encode_smem_floats(int rows, int hop, int Kn) {
+    return (size_t)(rows - 1) * hop + Kn + kStageFloats;
+}
+
+__host__ __device__ inline size_t roundtrip_smem_floats(int rows, int overlap, int hop, int Kn,
+                                                        int Kp) {
+    const int n_rows = rows + overlap - 1;
+    return (size_t)(n_rows - 1) * hop + Kn + (size_t)n_rows * Kp + kStageFloats;
+}
+
+__host__ __device__ inline size_t decode_smem_floats(int rows, int overlap, int Kp) {
+    return (size_t)(rows + overlap - 1) * Kp + kStageFloats;
+}
+
+// R: a block owns `rows` frames t0 .. of one stream.
+__global__ void __launch_bounds__(kThreads) session_encode_kernel(SessionArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    const long long blk = blockIdx.x;
+    const long long b = blk / a.n_tiles;
+    const int t0 = (int)(blk - b * a.n_tiles) * a.rows;
+    const int n_rows = min(a.rows, a.T - t0);
+    float* xs = smem;
+    float* stage = xs + (size_t)(a.rows - 1) * a.hop + a.Kn;  // 16-byte aligned: hop % 4 == 0
+    load_session_samples(a.x + (size_t)b * a.L, a.L, (long long)t0 * a.hop,
+                         (a.overlap - 1) * a.hop, (n_rows - 1) * a.hop + a.Kn, xs);
+    float2* out = reinterpret_cast<float2*>(a.out) + ((size_t)b * a.T + t0) * a.F;
+    const int F = a.F;
+    fullk_analysis(xs, n_rows, a.hop, a.Kn, F, a.wc, a.ws, stage,
+                   [&](int r, int k, float re, float im) {
+                       out[(size_t)r * F + k] = make_float2(re, im);
+                   });
+}
+
+// L (kRandom = false) and M (kRandom = true): a block owns `rows` output
+// chunks j0 .. of one stream; S row q is frame j0 - (overlap - 1) + q.
+template <int kRPT, bool kRandom>
+__global__ void __launch_bounds__(kThreads) session_roundtrip_kernel(SessionArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    const int m = a.overlap - 1, F = a.F, Kp = a.Kp, hop = a.hop;
+    const long long blk = blockIdx.x;
+    const long long b = blk / a.n_tiles;
+    const int j0 = (int)(blk - b * a.n_tiles) * a.rows;
+    const int j_end = min(a.T, j0 + a.rows);   // output chunks this block stores
+    const int n_rows = j_end - j0 + m;         // frames j0 - m .. j_end - 1
+    const int n_samples = (n_rows - 1) * hop + a.Kn;
+    float* xs = smem;
+    float* S = xs + (size_t)(a.rows + m - 1) * hop + a.Kn;  // 16-byte aligned: hop % 4 == 0
+    float* stage = S + (size_t)(a.rows + m) * Kp;
+    for (int q = 0; q < n_rows; ++q) {  // zero columns 2F .. Kp of every row
+        for (int k = 2 * F + threadIdx.x; k < Kp; k += kThreads) S[(size_t)q * Kp + k] = 0.0f;
+    }
+    load_session_samples(a.x + (size_t)b * a.L, a.L, (long long)(j0 - m) * hop, m * hop, n_samples,
+                         xs);
+    fullk_analysis(xs, n_rows, hop, a.Kn, F, a.wc, a.ws, stage,
+                   [&](int r, int k, float re, float im) {
+                       S[(size_t)r * Kp + k] = re;
+                       S[(size_t)r * Kp + F + k] = im;
+                   });
+    if (kRandom) {
+        // |X| with the session's angles; frames before 0 are zero rows
+        const float* ang = a.angles + (size_t)b * a.Ta * F;
+        for (int idx = threadIdx.x; idx < n_rows * F; idx += kThreads) {
+            const int q = idx / F;
+            const int k = idx - q * F;
+            const int f = j0 - m + q;
+            float* row = S + (size_t)q * Kp;
+            const float re = row[k], im = row[F + k];
+            float cs = 0.0f, sn = 0.0f;
+            if (f >= 0) sincosf(__ldg(ang + (size_t)f * F + k), &sn, &cs);
+            const float mg = sqrtf(re * re + im * im);
+            row[k] = mg * cs;
+            row[F + k] = mg * sn;
+        }
+    }
+    // synth_ola_tile starts with a barrier before it reads S; it stores the
+    // chunks below j_end and clamps the reads of the rows past them
+    synth_ola_tile<kRPT, kSumFold>(S, stage, a.syn, Kp, hop, a.overlap, j0, j_end, a.out + (size_t)b * a.T * hop);
+}
+
+// P: a block owns `rows` output chunks j0 .. of one stream; S row q is frame
+// j0 - (overlap - 1) + q, mag * (cos, sin)(angle) of the input.
+template <int kRPT>
+__global__ void __launch_bounds__(kThreads) session_decode_kernel(SessionArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    const int m = a.overlap - 1, F = a.F, Kp = a.Kp, T = a.T;
+    const long long blk = blockIdx.x;
+    const long long b = blk / a.n_tiles;
+    const int j0 = (int)(blk - b * a.n_tiles) * a.rows;
+    const int j_end = min(T, j0 + a.rows);
+    const int n_rows = j_end - j0 + m;
+    float* S = smem;
+    float* stage = S + (size_t)(a.rows + m) * Kp;
+    const float* mag = a.mag + (size_t)b * T * F;
+    const float* ang = a.angles + (size_t)b * a.Ta * F;
+    for (int q = 0; q < n_rows; ++q) {
+        const int f = j0 - m + q;
+        float* row = S + (size_t)q * Kp;
+        if (f >= 0) {
+            for (int k = threadIdx.x; k < F; k += kThreads) {
+                float sn, cs;
+                sincosf(__ldg(ang + (size_t)f * F + k), &sn, &cs);
+                const float mg = __ldg(mag + (size_t)f * F + k);
+                row[k] = mg * cs;
+                row[F + k] = mg * sn;
+            }
+            for (int k = 2 * F + threadIdx.x; k < Kp; k += kThreads) row[k] = 0.0f;
+        } else {
+            for (int k = threadIdx.x; k < Kp; k += kThreads) row[k] = 0.0f;
+        }
+    }
+    synth_ola_tile<kRPT, kSumFold>(S, stage, a.syn, Kp, a.hop, a.overlap, j0, j_end, a.out + (size_t)b * T * a.hop);
+}
+
+template <typename K>
+static cudaError_t session_allow_smem(K kernel, size_t bytes) {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+static bool session_args_ok(long long B, int T, int F, int hop, int overlap) {
+    return B >= 1 && T >= 1 && F >= 2 && hop % 4 == 0 && overlap >= 1 && overlap <= 8;
+}
+
+}  // namespace att
+
+extern "C" {
+
+long long att_session_encode_smem_bytes(int rows, int hop, int Kn) {
+    return (long long)(att::encode_smem_floats(rows, hop, Kn) * sizeof(float));
+}
+
+long long att_session_roundtrip_smem_bytes(int rows, int overlap, int hop, int Kn, int Kp) {
+    return (long long)(att::roundtrip_smem_floats(rows, overlap, hop, Kn, Kp) * sizeof(float));
+}
+
+long long att_session_decode_smem_bytes(int rows, int overlap, int Kp) {
+    return (long long)(att::decode_smem_floats(rows, overlap, Kp) * sizeof(float));
+}
+
+// Kernel R.  x (B, L) float32; wc / ws (Kn, F), Kn a multiple of 32 >= n_fft,
+// zero rows past n_fft; out (B, T, F, 2), every element written.  rows <= 40
+// frames per block; hop a multiple of 4.  Returns a cudaError_t.
+int att_session_encode(const float* x, const float* wc, const float* ws, float* out, long long B,
+                       long long L, int T, int F, int hop, int overlap, int Kn, int rows,
+                       void* stream) {
+    using namespace att;
+    if (!session_args_ok(B, T, F, hop, overlap) || Kn % kKC != 0 || rows < 1 || rows > kMaxRows) {
+        return (int)cudaErrorInvalidValue;
+    }
+    SessionArgs a = {};
+    a.x = x; a.wc = wc; a.ws = ws; a.out = out;
+    a.L = L; a.T = T; a.F = F; a.hop = hop; a.overlap = overlap; a.Kn = Kn; a.rows = rows;
+    a.n_tiles = (T + rows - 1) / rows;
+    const size_t smem = (size_t)att_session_encode_smem_bytes(rows, hop, Kn);
+    cudaError_t err = session_allow_smem(session_encode_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    session_encode_kernel<<<dim3((unsigned)(B * a.n_tiles)), kThreads, smem, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// Kernels L (angles == nullptr) and M.  x (B, L); angles (B, Ta, F) with
+// Ta >= T; wc / ws as for R; syn (overlap, Kp, hop), Kp a multiple of 32 >=
+// 2F; out (B, T * hop), every sample written.  rows output chunks per block,
+// rows + overlap - 1 <= 40.  Returns a cudaError_t.
+int att_session_roundtrip(const float* x, const float* angles, const float* wc, const float* ws,
+                          const float* syn, float* out, long long B, long long L, int T, int Ta,
+                          int F, int hop, int overlap, int Kn, int Kp, int rows, void* stream) {
+    using namespace att;
+    if (!session_args_ok(B, T, F, hop, overlap) || Kn % kKC != 0 || Kp % kSynKC != 0 ||
+        Kp < 2 * F || rows < 1 || rows + overlap - 1 > kMaxRows || (angles != nullptr && Ta < T)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    SessionArgs a = {};
+    a.x = x; a.angles = angles; a.wc = wc; a.ws = ws; a.syn = syn; a.out = out;
+    a.L = L; a.T = T; a.Ta = Ta; a.F = F; a.hop = hop; a.overlap = overlap; a.Kn = Kn; a.Kp = Kp;
+    a.rows = rows;
+    a.n_tiles = (T + rows - 1) / rows;
+    const size_t smem = roundtrip_smem_floats(rows, overlap, hop, Kn, Kp) * sizeof(float);
+    dim3 grid((unsigned)(B * a.n_tiles));
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
+#define ATT_LAUNCH_RT(RPT, RAND)                                                   \
+    do {                                                                           \
+        err = session_allow_smem(session_roundtrip_kernel<RPT, RAND>, smem);       \
+        if (err != cudaSuccess) return (int)err;                                   \
+        session_roundtrip_kernel<RPT, RAND><<<grid, kThreads, smem, s>>>(a);       \
+    } while (0)
+#define ATT_LAUNCH_RT2(RPT)                                                        \
+    do {                                                                           \
+        if (angles != nullptr) ATT_LAUNCH_RT(RPT, true); else ATT_LAUNCH_RT(RPT, false); \
+    } while (0)
+    const int rpt = (rows + 7) / 8;
+    if (rpt >= 5) ATT_LAUNCH_RT2(5);
+    else if (rpt == 4) ATT_LAUNCH_RT2(4);
+    else if (rpt == 3) ATT_LAUNCH_RT2(3);
+    else if (rpt == 2) ATT_LAUNCH_RT2(2);
+    else ATT_LAUNCH_RT2(1);
+#undef ATT_LAUNCH_RT2
+#undef ATT_LAUNCH_RT
+    return (int)cudaGetLastError();
+}
+
+// Kernel P.  mag (B, T, F); angles (B, Ta, F) with Ta >= T; syn as for L;
+// out (B, T * hop), every sample written.  rows <= 40 output chunks per
+// block.  Returns a cudaError_t.
+int att_session_decode(const float* mag, const float* angles, const float* syn, float* out,
+                       long long B, int T, int Ta, int F, int hop, int overlap, int Kp, int rows,
+                       void* stream) {
+    using namespace att;
+    if (!session_args_ok(B, T, F, hop, overlap) || Kp % kSynKC != 0 || Kp < 2 * F || rows < 1 ||
+        rows > 8 * 5 || Ta < T) {
+        return (int)cudaErrorInvalidValue;
+    }
+    SessionArgs a = {};
+    a.mag = mag; a.angles = angles; a.syn = syn; a.out = out;
+    a.T = T; a.Ta = Ta; a.F = F; a.hop = hop; a.overlap = overlap; a.Kp = Kp; a.rows = rows;
+    a.n_tiles = (T + rows - 1) / rows;
+    const size_t smem = decode_smem_floats(rows, overlap, Kp) * sizeof(float);
+    dim3 grid((unsigned)(B * a.n_tiles));
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
+#define ATT_LAUNCH_DEC(RPT)                                                        \
+    do {                                                                           \
+        err = session_allow_smem(session_decode_kernel<RPT>, smem);                \
+        if (err != cudaSuccess) return (int)err;                                   \
+        session_decode_kernel<RPT><<<grid, kThreads, smem, s>>>(a);                \
+    } while (0)
+    const int rpt = (rows + 7) / 8;
+    if (rpt >= 5) ATT_LAUNCH_DEC(5);
+    else if (rpt == 4) ATT_LAUNCH_DEC(4);
+    else if (rpt == 3) ATT_LAUNCH_DEC(3);
+    else if (rpt == 2) ATT_LAUNCH_DEC(2);
+    else ATT_LAUNCH_DEC(1);
+#undef ATT_LAUNCH_DEC
+    return (int)cudaGetLastError();
+}
+
+}  // extern "C"

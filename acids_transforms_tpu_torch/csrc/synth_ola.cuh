@@ -19,6 +19,13 @@
 // the contraction per piece padded to a multiple of 32 with zeros); the basis
 // is staged through shared memory 32 rows at a time, the next chunk's values
 // loaded into registers before the current chunk is multiplied.
+//
+// kFold > 0 sums the contraction in partial sums of kFold staged chunks
+// (kFold * 32 terms, a piece's last one shorter), each added to the total when
+// it ends: one running sum over overlap * Kp terms (4224 at n_fft 1024) of
+// large values that cancel to a small sample rounds further from exact (see
+// stream_step.cu, whose kernels take it).  kFold = 0 keeps the single running
+// sum.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,12 +36,23 @@ constexpr int kSynThreads = 256;
 constexpr int kSynCols = 256;   // sample columns per pass
 constexpr int kSynKC = 32;      // contraction rows staged at a time
 
+__device__ __forceinline__ void fma8(float (&s)[8], float av, const float4& b0, const float4& b1) {
+    s[0] = fmaf(av, b0.x, s[0]);
+    s[1] = fmaf(av, b0.y, s[1]);
+    s[2] = fmaf(av, b0.z, s[2]);
+    s[3] = fmaf(av, b0.w, s[3]);
+    s[4] = fmaf(av, b1.x, s[4]);
+    s[5] = fmaf(av, b1.y, s[5]);
+    s[6] = fmaf(av, b1.z, s[6]);
+    s[7] = fmaf(av, b1.w, s[7]);
+}
+
 // S: (R + overlap - 1) rows of Kp floats in shared memory, row q = frame
 // j0 - (overlap - 1) + q, or only the rows up to the last chunk's when
 // n_chunks - j0 < R.  Bst: kSynKC * kSynCols floats of shared memory.
 // basis: (overlap, Kp, hop) in device memory.  out_row: the clip's signal,
 // n_chunks * hop floats; chunks [j0, j0 + R) below n_chunks are written.
-template <int kRPT>
+template <int kRPT, int kFold = 0>
 __device__ void synth_ola_tile(const float* S, float* Bst, const float* __restrict__ basis,
                                int Kp, int hop, int overlap, int j0, int n_chunks,
                                float* __restrict__ out_row) {
@@ -53,10 +71,16 @@ __device__ void synth_ola_tile(const float* S, float* Bst, const float* __restri
     }
     for (int c0 = 0; c0 < hop; c0 += kSynCols) {
         float acc[kRPT][8];
+        float part[kFold > 0 ? kRPT : 1][8];  // the current partial sum (kFold > 0)
 #pragma unroll
         for (int r = 0; r < kRPT; ++r) {
 #pragma unroll
             for (int q = 0; q < 8; ++q) acc[r][q] = 0.0f;
+        }
+#pragma unroll
+        for (int r = 0; r < (kFold > 0 ? kRPT : 1); ++r) {
+#pragma unroll
+            for (int q = 0; q < 8; ++q) part[r][q] = 0.0f;
         }
         float4 stage[kVec];
         const int n_steps = overlap * (Kp / kSynKC);
@@ -106,14 +130,24 @@ __device__ void synth_ola_tile(const float* S, float* Bst, const float* __restri
                     for (int r = 0; r < kRPT; ++r) {
                         const float av =
                             u == 0 ? a[r].x : (u == 1 ? a[r].y : (u == 2 ? a[r].z : a[r].w));
-                        acc[r][0] = fmaf(av, b0.x, acc[r][0]);
-                        acc[r][1] = fmaf(av, b0.y, acc[r][1]);
-                        acc[r][2] = fmaf(av, b0.z, acc[r][2]);
-                        acc[r][3] = fmaf(av, b0.w, acc[r][3]);
-                        acc[r][4] = fmaf(av, b1.x, acc[r][4]);
-                        acc[r][5] = fmaf(av, b1.y, acc[r][5]);
-                        acc[r][6] = fmaf(av, b1.z, acc[r][6]);
-                        acc[r][7] = fmaf(av, b1.w, acc[r][7]);
+                        if constexpr (kFold > 0) {
+                            fma8(part[r], av, b0, b1);
+                        } else {
+                            fma8(acc[r], av, b0, b1);
+                        }
+                    }
+                }
+            }
+            if constexpr (kFold > 0) {
+                const int kc = step - i * (Kp / kSynKC) + 1;  // chunks of this piece done
+                if (kc % kFold == 0 || kc == Kp / kSynKC) {
+#pragma unroll
+                    for (int r = 0; r < kRPT; ++r) {
+#pragma unroll
+                        for (int q = 0; q < 8; ++q) {
+                            acc[r][q] += part[r][q];
+                            part[r][q] = 0.0f;
+                        }
                     }
                 }
             }

@@ -167,6 +167,28 @@ def _declare(lib: ctypes.CDLL) -> None:
         ll, i, i, i, i, i, i, p,         # B, T, F, hop, overlap, Kp, rows, stream
     ]
     lib.att_pghi_synthesize.restype = i
+    lib.att_session_encode_smem_bytes.argtypes = [i, i, i]
+    lib.att_session_encode_smem_bytes.restype = ll
+    lib.att_session_roundtrip_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.att_session_roundtrip_smem_bytes.restype = ll
+    lib.att_session_decode_smem_bytes.argtypes = [i, i, i]
+    lib.att_session_decode_smem_bytes.restype = ll
+    lib.att_session_encode.argtypes = [
+        p, p, p, p,                      # x, wc, ws, out
+        ll, ll, i, i, i, i, i, i, p,     # B, L, T, F, hop, overlap, Kn, rows, stream
+    ]
+    lib.att_session_encode.restype = i
+    lib.att_session_roundtrip.argtypes = [
+        p, p, p, p, p, p,                # x, angles (or None), wc, ws, syn, out
+        ll, ll, i, i, i, i, i, i, i, i,  # B, L, T, Ta, F, hop, overlap, Kn, Kp, rows
+        p,                               # stream
+    ]
+    lib.att_session_roundtrip.restype = i
+    lib.att_session_decode.argtypes = [
+        p, p, p, p,                      # mag, angles, syn, out
+        ll, i, i, i, i, i, i, i, p,      # B, T, Ta, F, hop, overlap, Kp, rows, stream
+    ]
+    lib.att_session_decode.restype = i
 
 
 def load_library() -> ctypes.CDLL:

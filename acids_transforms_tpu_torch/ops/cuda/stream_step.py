@@ -1,0 +1,496 @@
+"""Whole-session streaming kernels (twin of the JAX ``ops/pallas/stream_step.py``).
+
+A chunked session of an ``[OverlapAdd, RealtimeSTFT-family]`` chain is one
+kernel launch instead of a Python loop of small ops per chunk
+(``streaming.py``).  This module holds the four sessions of this slice:
+
+* ``make_fused_forward_session`` (kernel R): encode, audio ``(..., L)`` ->
+  complex frames ``(..., T, F)`` and the chain's final state;
+* ``make_fused_roundtrip`` (L): the complex roundtrip, audio -> audio;
+* ``make_fused_random_roundtrip`` (M): the ``random`` roundtrip (the
+  reference's default realtime mode), ``|X|`` with the session's angles;
+* ``make_fused_random_invert`` (P): the ``random`` decode, magnitudes
+  ``(..., T, F)`` -> audio ``(..., T * hop)``.
+
+The kernels (``csrc/stream_step.cu``) carry no state between chunks: a fresh
+session's frame ``t`` is the slice ``[t hop, t hop + n_fft)`` of the signal
+behind ``overlap - 1`` zero hops of initial ring (:func:`session_rows`), and
+its output the overlap-add of all synthesis frames at hop stride, cut at
+``T * hop`` samples.  The synthesis basis holds the synthesis window divided
+by OverlapAdd's ``gain_compensation`` (the chunked loop divides after the
+overlap-add: the two differ by rounding).  On a CUDA tensor each session
+launches its kernel or raises; on a CPU tensor it runs the plain PyTorch
+version beside it (``session_*_reference``: materialized frames, ``torch.matmul``
+against the windowed bases in float32, ``ops/framing.overlap_add``), which is
+also what the kernels are held against on the card.
+
+Gates.  ``fused_*_available`` keep the JAX package's structural conditions:
+``OverlapAdd`` and a ``RealtimeSTFT``-family transform with the same ``(n_fft,
+hop)``, ``hop | n_fft``, ``2 <= overlap <= 8``, ``hop | chunk`` and ``chunk >=
+n_fft``.  The TPU lane layout's further conditions are replaced by the
+kernels' own limits, ``hop % 4 == 0`` and a block that fits shared memory
+(:func:`kernel_covers`); a shape inside the gate but outside those limits
+raises ``NotImplementedError`` on a CUDA tensor and is never sent elsewhere.
+
+Angle draws.  The random sessions draw their angles chunk by chunk, each of
+shape ``batch_shape + (T_c, F)``, from one ``torch.Generator`` through
+``ops/pghi.py:random_angles``, in the order the generic chunk scan draws them
+(:func:`session_angles`): with the same seeded generator on the same device
+the kernel route and the generic scan see the same angles bit for bit.  No
+generator means one seeded with 0 for the whole session.  ``angles=`` takes
+them as an operand instead (the tests feed the JAX package's draws).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..fft import _dft_matrices, _idft_matrices, _tables
+from ..framing import frame, overlap_add
+from ..pghi import random_angles
+from . import _build
+
+__all__ = [
+    "fused_forward_session_available", "make_fused_forward_session",
+    "fused_roundtrip_available", "make_fused_roundtrip",
+    "fused_random_roundtrip_available", "make_fused_random_roundtrip",
+    "fused_random_invert_available", "make_fused_random_invert",
+    "kernel_covers", "session_rows", "session_angles",
+    "session_encode_reference", "session_roundtrip_reference", "session_decode_reference",
+    "launches", "reset_launches",
+]
+
+MAX_SMEM = 232448                 # bytes of shared memory a block may use on sm_90
+MAX_ROWS = 40                     # frames one block's analysis holds (8 warps x 5 rows)
+MAX_OVERLAP = 8
+_KC = 32                          # staged contraction rows (dft_common.cuh, synth_ola.cuh)
+_STAGE = 2 * 32 * 128             # floats of the staging area both phases share
+
+#: kernel launches made by the wrappers of this module, by kernel
+launches: Dict[str, int] = {
+    "session_encode": 0, "session_roundtrip": 0,
+    "session_random_roundtrip": 0, "session_random_decode": 0,
+}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+# ------------------------------------------------------------------ gates
+def _parts(chain):
+    """``(oadd, rt)`` of a two-child ``[OverlapAdd, RealtimeSTFT-family]``
+    chain, else None."""
+    from ...transforms.base import ComposeAudioTransform
+    from ...transforms.oadd import OverlapAdd
+    from ...transforms.stft import RealtimeSTFT
+
+    if not isinstance(chain, ComposeAudioTransform) or len(chain) != 2:
+        return None
+    oadd, rt = chain.transforms
+    if not isinstance(oadd, OverlapAdd) or not isinstance(rt, RealtimeSTFT):
+        return None
+    return oadd, rt
+
+
+def fused_roundtrip_available(chain, chunk_size: int) -> bool:
+    """True when ``chain`` is ``[OverlapAdd, RealtimeSTFT-family]`` with
+    matching ``(n_fft, hop)``, ``hop | n_fft``, ``2 <= overlap <= 8``, ``hop |
+    chunk`` and ``chunk >= n_fft`` (the structure every session kernel of
+    this module covers; :func:`kernel_covers` adds the kernels' limits)."""
+    parts = _parts(chain)
+    if parts is None:
+        return False
+    oadd, rt = parts
+    return (
+        oadd.n_fft == rt.n_fft
+        and oadd.hop_length == rt.hop_length
+        and rt.n_fft % rt.hop_length == 0
+        and 2 <= rt.n_fft // rt.hop_length <= MAX_OVERLAP
+        and chunk_size % rt.hop_length == 0
+        and chunk_size >= rt.n_fft
+    )
+
+
+def fused_random_roundtrip_available(chain, chunk_size: int) -> bool:
+    """Gate of the ``inversion_mode="random"`` roundtrip session: the same
+    structure (random phases carry no per-chunk statistic)."""
+    return fused_roundtrip_available(chain, chunk_size)
+
+
+def fused_forward_session_available(chain, chunk_size: int) -> bool:
+    """Gate of the encode session: the same structure."""
+    return fused_roundtrip_available(chain, chunk_size)
+
+
+def _invert_chunk_size(chain, chunk_frames: int) -> Optional[int]:
+    """``chunk_frames * hop`` for a recognized two-chain, else None: the
+    invert gates reuse the roundtrip gate."""
+    parts = _parts(chain)
+    return None if parts is None else chunk_frames * parts[1].hop_length
+
+
+def fused_random_invert_available(chain, chunk_frames: int) -> bool:
+    """Gate of the ``inversion_mode="random"`` decode session."""
+    cs = _invert_chunk_size(chain, chunk_frames)
+    return cs is not None and fused_random_roundtrip_available(chain, cs)
+
+
+# ------------------------------------------------------- kernels' limits
+def _k_padded(n_bins: int) -> int:
+    """Row length of the synthesis's ``[re | im]`` rows: 2F rounded up to 32."""
+    return -(-2 * n_bins // _KC) * _KC
+
+
+def _k_analysis(n_fft: int) -> int:
+    """Rows of the analysis basis: n_fft rounded up to 32 (zero rows below)."""
+    return -(-n_fft // _KC) * _KC
+
+
+def _encode_smem_bytes(rows: int, hop: int, kn: int) -> int:
+    """Shared memory of one encode block, as ``csrc/stream_step.cu`` lays it out."""
+    return 4 * ((rows - 1) * hop + kn + _STAGE)
+
+
+def _roundtrip_smem_bytes(rows: int, overlap: int, hop: int, kn: int, kp: int) -> int:
+    n_rows = rows + overlap - 1
+    return 4 * ((n_rows - 1) * hop + kn + n_rows * kp + _STAGE)
+
+
+def _decode_smem_bytes(rows: int, overlap: int, kp: int) -> int:
+    return 4 * ((rows + overlap - 1) * kp + _STAGE)
+
+
+def _best_rows(candidates, overlap: int) -> Optional[int]:
+    """The block height with the least recomputed or idle work: a block of R
+    output chunks analyses or builds R + overlap - 1 frame rows, and the
+    synthesis computes 8 * ceil(R / 8) chunks."""
+    best, score = None, 0.0
+    for r in candidates:
+        s = r / (8 * -(-r // 8)) * r / (r + overlap - 1)
+        if s > score:
+            best, score = r, s
+    return best
+
+
+def _pick_rows(kind: str, n_fft: int, hop: int) -> Optional[int]:
+    """Frames (encode) or output chunks (roundtrip, decode) per block, or
+    None when not even one fits shared memory."""
+    overlap = n_fft // hop
+    kp, kn = _k_padded(n_fft // 2 + 1), _k_analysis(n_fft)
+    if kind == "encode":
+        fit = [r for r in range(1, MAX_ROWS + 1) if _encode_smem_bytes(r, hop, kn) <= MAX_SMEM]
+        return max(fit) if fit else None
+    if kind == "roundtrip":
+        fit = [r for r in range(1, MAX_ROWS - overlap + 2)
+               if _roundtrip_smem_bytes(r, overlap, hop, kn, kp) <= MAX_SMEM]
+    else:
+        fit = [r for r in range(1, MAX_ROWS + 1) if _decode_smem_bytes(r, overlap, kp) <= MAX_SMEM]
+    return _best_rows(fit, overlap)
+
+
+def kernel_covers(kind: str, n_fft: int, hop: int) -> bool:
+    """Whether the kernel of ``kind`` (``"encode"``, ``"roundtrip"`` or
+    ``"decode"``) takes the shape: ``hop % 4 == 0`` (16-byte rows) and a
+    block that fits shared memory."""
+    return hop % 4 == 0 and n_fft % hop == 0 and _pick_rows(kind, n_fft, hop) is not None
+
+
+def _require(kind: str, n_fft: int, hop: int) -> int:
+    """The block height of ``kind``, or raise: a shape the structural gate
+    lets through is never quietly computed some other way."""
+    if kernel_covers(kind, n_fft, hop):
+        return _pick_rows(kind, n_fft, hop)
+    raise NotImplementedError(
+        "the CUDA session kernels do not cover n_fft=%d hop=%d (%s): they need "
+        "hop %% 4 == 0 and a block that fits shared memory (ROADMAP Queue 2, "
+        "K10-K14); use backend='generic'" % (n_fft, hop, kind)
+    )
+
+
+# ------------------------------------------------------- shared plumbing
+def session_rows(x2d: torch.Tensor, n_fft: int, hop: int, n_frames: int) -> torch.Tensor:
+    """The row-padded signal ``(B, (n_frames + overlap - 1) * hop)``:
+    ``overlap - 1`` zero hops of initial ring, the signal, zeros to the end.
+    Frame ``t`` of the session is its slice ``[t hop, t hop + n_fft)``."""
+    lead = n_fft - hop
+    total = (n_frames - 1) * hop + n_fft
+    tail = total - lead - x2d.shape[-1]
+    return torch.nn.functional.pad(x2d, (lead, tail))
+
+
+def session_angles(batch_shape, n_chunks: int, T_c: int, n_bins: int, device,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The session's phases ``(B, n_chunks * T_c, F)``, drawn chunk by chunk
+    as the generic scan draws them (one ``batch_shape + (T_c, F)`` draw per
+    chunk from ``generator``; None: one seeded with 0)."""
+    if generator is None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(0)
+    shape = tuple(batch_shape) + (T_c, n_bins)
+    draws = [random_angles(shape, device, generator) for _ in range(n_chunks)]
+    return torch.cat(draws, dim=-2).reshape(-1, n_chunks * T_c, n_bins)
+
+
+def _ana_basis(window: torch.Tensor, n_fft: int, rows: Optional[int] = None):
+    """``w[n] (cos, -sin)(2 pi n k / n_fft)`` as two ``(rows, F)`` tensors,
+    zero rows past n_fft."""
+    C, S = _tables(_dft_matrices, window.device, n_fft)
+    w = window.to(torch.float32)[:, None]
+    pad = (0, 0, 0, (rows or n_fft) - n_fft)
+    return (torch.nn.functional.pad(w * C, pad).contiguous(),
+            torch.nn.functional.pad(w * S, pad).contiguous())
+
+
+def _syn_mats(inv_window: torch.Tensor, gain: float, n_fft: int):
+    """Inverse real-DFT matrices ``(F, n_fft)`` with ``inv_window / gain``
+    folded in."""
+    A, Bm = _tables(_idft_matrices, inv_window.device, n_fft)
+    w = (inv_window.to(torch.float32) / gain)[None, :]
+    return A * w, Bm * w
+
+
+def _syn_basis(inv_window: torch.Tensor, gain: float, n_fft: int, hop: int) -> torch.Tensor:
+    """The kernels' synthesis basis ``(overlap, Kp, hop)``: rows ``[A; B; 0]``
+    of :func:`_syn_mats`, cut into ``overlap`` pieces of ``hop`` samples."""
+    n_bins = n_fft // 2 + 1
+    kp = _k_padded(n_bins)
+    Aw, Bw = _syn_mats(inv_window, gain, n_fft)
+    ab = torch.cat([Aw, Bw, Aw.new_zeros((kp - 2 * n_bins, n_fft))], dim=0)
+    return ab.reshape(kp, n_fft // hop, hop).permute(1, 0, 2).contiguous()
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _flat(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape((-1, x.shape[-1])).to(torch.float32).contiguous()
+
+
+def _angles_3d(angles: torch.Tensor, B: int, n_frames: int, n_bins: int, device) -> torch.Tensor:
+    a = angles.to(device=device, dtype=torch.float32).reshape(B, -1, n_bins)
+    if a.shape[1] < n_frames:
+        raise ValueError("angles hold %d frames, the session needs %d" % (a.shape[1], n_frames))
+    return a.contiguous()
+
+
+# ---------------------------------------------------------- plain versions
+def session_encode_reference(x2d, window, n_fft: int, hop: int, n_frames: int):
+    """Plain version of kernel R: ``(re, im)`` of the session's ``n_frames``
+    frames, each ``(B, n_frames, F)``."""
+    frames = frame(session_rows(x2d, n_fft, hop, n_frames), n_fft, hop)
+    WC, WS = _ana_basis(window.to(x2d.device), n_fft)
+    return torch.matmul(frames, WC), torch.matmul(frames, WS)
+
+
+def _synthesize(re, im, inv_window, gain: float, n_fft: int, hop: int, T: int) -> torch.Tensor:
+    Aw, Bw = _syn_mats(inv_window.to(re.device), gain, n_fft)
+    frames = torch.matmul(re, Aw) + torch.matmul(im, Bw)
+    return overlap_add(frames, hop)[..., : T * hop]
+
+
+def session_roundtrip_reference(x2d, window, inv_window, gain: float, n_fft: int, hop: int,
+                                n_frames: int, angles=None) -> torch.Tensor:
+    """Plain version of kernels L (``angles=None``) and M: ``(B, n_frames *
+    hop)``; M's angles ``(B, >= n_frames, F)``."""
+    re, im = session_encode_reference(x2d, window, n_fft, hop, n_frames)
+    if angles is not None:
+        a = angles[:, :n_frames]
+        mag = torch.sqrt(re * re + im * im)
+        re, im = mag * torch.cos(a), mag * torch.sin(a)
+    return _synthesize(re, im, inv_window, gain, n_fft, hop, n_frames)
+
+
+def session_decode_reference(mag, angles, inv_window, gain: float, n_fft: int, hop: int) -> torch.Tensor:
+    """Plain version of kernel P: magnitudes ``(B, T, F)`` and angles ``(B,
+    >= T, F)`` -> ``(B, T * hop)``."""
+    T = mag.shape[1]
+    a = angles[:, :T]
+    return _synthesize(mag * torch.cos(a), mag * torch.sin(a), inv_window, gain, n_fft, hop, T)
+
+
+# ---------------------------------------------------------------- launches
+def _launch_encode(x2d, WC, WS, n_fft, hop, T) -> torch.Tensor:
+    rows = _require("encode", n_fft, hop)
+    B, F = x2d.shape[0], n_fft // 2 + 1
+    out = torch.empty((B, T, F, 2), dtype=torch.float32, device=x2d.device)
+    lib = _build.load_library()
+    with torch.cuda.device(x2d.device):
+        code = lib.att_session_encode(
+            x2d.data_ptr(), WC.data_ptr(), WS.data_ptr(), out.data_ptr(), B, x2d.shape[1], T, F,
+            hop, n_fft // hop, WC.shape[0], rows, _stream(),
+        )
+    _build.check(code, "session_encode")
+    launches["session_encode"] += 1
+    return out
+
+
+def _launch_roundtrip(x2d, angles, WC, WS, syn, n_fft, hop, T) -> torch.Tensor:
+    rows = _require("roundtrip", n_fft, hop)
+    B, F = x2d.shape[0], n_fft // 2 + 1
+    out = torch.empty((B, T * hop), dtype=torch.float32, device=x2d.device)
+    lib = _build.load_library()
+    with torch.cuda.device(x2d.device):
+        code = lib.att_session_roundtrip(
+            x2d.data_ptr(), None if angles is None else angles.data_ptr(), WC.data_ptr(),
+            WS.data_ptr(), syn.data_ptr(), out.data_ptr(), B, x2d.shape[1], T,
+            T if angles is None else angles.shape[1], F, hop, n_fft // hop, WC.shape[0],
+            syn.shape[1], rows, _stream(),
+        )
+    name = "session_roundtrip" if angles is None else "session_random_roundtrip"
+    _build.check(code, name)
+    launches[name] += 1
+    return out
+
+
+def _launch_decode(mag, angles, syn, n_fft, hop) -> torch.Tensor:
+    rows = _require("decode", n_fft, hop)
+    B, T, F = mag.shape
+    out = torch.empty((B, T * hop), dtype=torch.float32, device=mag.device)
+    lib = _build.load_library()
+    with torch.cuda.device(mag.device):
+        code = lib.att_session_decode(
+            mag.data_ptr(), angles.data_ptr(), syn.data_ptr(), out.data_ptr(), B, T,
+            angles.shape[1], F, hop, n_fft // hop, syn.shape[1], rows, _stream(),
+        )
+    _build.check(code, "session_random_decode")
+    launches["session_random_decode"] += 1
+    return out
+
+
+# ---------------------------------------------------------------- sessions
+class _Session:
+    """What the four sessions share: the chain's shape and its bases."""
+
+    def __init__(self, chain, chunk_frames: int):
+        parts = _parts(chain)
+        if parts is None:
+            raise ValueError("expected an [OverlapAdd, RealtimeSTFT-family] chain")
+        self.chain = chain
+        self.oadd, self.rt = parts
+        self.n_fft, self.hop = self.rt.n_fft, self.rt.hop_length
+        self.T_c = int(chunk_frames)
+        self.F = self.n_fft // 2 + 1
+        self.gain = float(self.oadd.gain_compensation)
+
+    def analysis(self):
+        return _ana_basis(self.rt.window, self.n_fft, _k_analysis(self.n_fft))
+
+    def synthesis(self):
+        return _syn_basis(self.rt.inv_window, self.gain, self.n_fft, self.hop)
+
+
+def make_fused_forward_session(chain, chunk_size: int):
+    """Whole-session ENCODE ``fn(x (..., L)) -> (frames complex (..., T, F),
+    final_state)`` for an ``[OverlapAdd, RealtimeSTFT-family]`` chain, ``T =
+    n_chunks * chunk_size / hop``; equal to the generic ``scan_forward(chain,
+    x, chunk_size)`` up to float32 rounding.  The forward moves no state
+    past the framing ring, so the final state is the fresh one with the ring
+    holding the chunk-padded signal's last ``(overlap - 1) hop`` samples."""
+    s = _Session(chain, chunk_size // chain.transforms[1].hop_length)
+    n_fft, hop = s.n_fft, s.hop
+    WC, WS = s.analysis()
+
+    def run(x: torch.Tensor):
+        batch_shape = tuple(x.shape[:-1])
+        L = x.shape[-1]
+        n_chunks = -(-L // chunk_size)
+        T = n_chunks * s.T_c
+        xb = _flat(x)
+        if xb.is_cuda:
+            spec = torch.view_as_complex(_launch_encode(xb, WC, WS, n_fft, hop, T))
+        else:
+            re, im = session_encode_reference(xb, s.rt.window, n_fft, hop, T)
+            spec = torch.complex(re, im)
+        spec = spec.reshape(batch_shape + (T, s.F))
+        state = chain.init_state(batch_shape)
+        carry = n_fft - hop
+        # the last `carry` samples of [initial ring, x, chunk padding]
+        ring = torch.cat([state[0]["input_buffer"], x[..., -carry:].to(torch.float32)], dim=-1)
+        ring = torch.nn.functional.pad(ring, (0, n_chunks * chunk_size - L))
+        state[0] = dict(state[0], input_buffer=ring[..., -carry:].contiguous())
+        return spec, state
+
+    return run
+
+
+def make_fused_roundtrip(chain, chunk_size: int):
+    """Whole-session complex roundtrip ``fn(x (..., L)) -> (..., n_chunks *
+    chunk_size)``; equal to the generic ``scan_roundtrip(chain, x,
+    chunk_size)`` up to float32 rounding (output delayed by ``(overlap - 1)
+    hop`` samples, like every streaming roundtrip)."""
+    s = _Session(chain, chunk_size // chain.transforms[1].hop_length)
+    WC, WS = s.analysis()
+    syn = s.synthesis()
+
+    def run(x: torch.Tensor) -> torch.Tensor:
+        T = -(-x.shape[-1] // chunk_size) * s.T_c
+        xb = _flat(x)
+        if xb.is_cuda:
+            y = _launch_roundtrip(xb, None, WC, WS, syn, s.n_fft, s.hop, T)
+        else:
+            y = session_roundtrip_reference(xb, s.rt.window, s.rt.inv_window, s.gain, s.n_fft,
+                                            s.hop, T)
+        return y.reshape(tuple(x.shape[:-1]) + (T * s.hop,))
+
+    return run
+
+
+def make_fused_random_roundtrip(chain, chunk_size: int, generator: Optional[torch.Generator] = None,
+                                angles: Optional[torch.Tensor] = None):
+    """Whole-session ``inversion_mode="random"`` roundtrip ``fn(x) -> audio``
+    (the reference's default realtime mode): the analysis magnitudes with the
+    session's angles (:func:`session_angles` from ``generator``, or
+    ``angles`` ``(..., >= T, F)``), then the synthesis.  Equal to
+    ``scan_roundtrip(chain, x, chunk_size, inversion_mode="random",
+    generator=g)`` with a generator in the same state."""
+    s = _Session(chain, chunk_size // chain.transforms[1].hop_length)
+    WC, WS = s.analysis()
+    syn = s.synthesis()
+
+    def run(x: torch.Tensor) -> torch.Tensor:
+        batch_shape = tuple(x.shape[:-1])
+        n_chunks = -(-x.shape[-1] // chunk_size)
+        T = n_chunks * s.T_c
+        xb = _flat(x)
+        a = (session_angles(batch_shape, n_chunks, s.T_c, s.F, xb.device, generator)
+             if angles is None else _angles_3d(angles, xb.shape[0], T, s.F, xb.device))
+        if xb.is_cuda:
+            y = _launch_roundtrip(xb, a, WC, WS, syn, s.n_fft, s.hop, T)
+        else:
+            y = session_roundtrip_reference(xb, s.rt.window, s.rt.inv_window, s.gain, s.n_fft,
+                                            s.hop, T, angles=a)
+        return y.reshape(batch_shape + (T * s.hop,))
+
+    return run
+
+
+def make_fused_random_invert(chain, chunk_frames: int, generator: Optional[torch.Generator] = None,
+                             angles: Optional[torch.Tensor] = None):
+    """Whole-session ``inversion_mode="random"`` DECODE ``fn(mags (..., T,
+    F)) -> audio (..., T * hop)``; equal to ``scan_invert(chain, mags,
+    chunk_frames, inversion_mode="random", generator=g)`` with a generator in
+    the same state (the draws cover ``ceil(T / chunk_frames)`` whole chunks,
+    as the scan's zero-padded last chunk does)."""
+    s = _Session(chain, chunk_frames)
+
+    syn = s.synthesis()
+
+    def run(y: torch.Tensor) -> torch.Tensor:
+        batch_shape = tuple(y.shape[:-2])
+        T = y.shape[-2]
+        n_chunks = -(-T // s.T_c)
+        mag = y.reshape((-1, T, s.F)).to(torch.float32).contiguous()
+        a = (session_angles(batch_shape, n_chunks, s.T_c, s.F, mag.device, generator)
+             if angles is None else _angles_3d(angles, mag.shape[0], T, s.F, mag.device))
+        if mag.is_cuda:
+            out = _launch_decode(mag, a, syn, s.n_fft, s.hop)
+        else:
+            out = session_decode_reference(mag, a, s.rt.inv_window, s.gain, s.n_fft, s.hop)
+        return out.reshape(batch_shape + (T * s.hop,))
+
+    return run

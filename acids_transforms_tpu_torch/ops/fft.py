@@ -34,6 +34,7 @@ __all__ = [
     "stft",
     "stft_real",
     "istft",
+    "rfft_frames",
     "irfft_frames",
     "spectral_frames",
     "window_taps",
@@ -131,6 +132,15 @@ def _resolve_impl(impl: str, n_fft: int) -> str:
     if impl not in ("fft", "matmul"):
         raise ValueError("unknown fft impl %r" % impl)
     return impl
+
+
+def rfft_frames(frames_w: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """rFFT of windowed frames ``(..., T, n_fft) -> (..., T, n_fft//2+1)`` complex."""
+    n_fft = frames_w.shape[-1]
+    if _resolve_impl(impl, n_fft) == "fft":
+        return torch.fft.rfft(frames_w, dim=-1)
+    C, S = _tables(_dft_matrices, frames_w.device, n_fft)
+    return torch.complex(torch.matmul(frames_w, C), torch.matmul(frames_w, S))
 
 
 def irfft_frames(

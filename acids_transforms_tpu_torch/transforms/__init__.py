@@ -5,8 +5,9 @@ from .base import (
     InversionEnumType,
     NotInvertibleError,
 )
-from .dgt import DGT
+from .dgt import DGT, RealtimeDGT
 from .norm import Normalize
+from .oadd import OverlapAdd
 from .raw import Mono
 from .spectral_repr import (
     IF,
@@ -20,7 +21,7 @@ from .spectral_repr import (
     Real,
     SpectralRepresentation,
 )
-from .stft import STFT
+from .stft import STFT, RealtimeSTFT
 
 __all__ = [
     "AudioTransform",
@@ -29,7 +30,10 @@ __all__ = [
     "InversionEnumType",
     "Mono",
     "STFT",
+    "RealtimeSTFT",
     "DGT",
+    "RealtimeDGT",
+    "OverlapAdd",
     "Dummy",
     "Real",
     "Imaginary",
@@ -49,8 +53,6 @@ _UNPORTED = {
     "Stereo": "Queue 1 item 6", "MidSide": "Queue 1 item 6", "Window": "Queue 1 item 6",
     "MuLaw": "Queue 1 item 6", "Unsqueeze": "Queue 1 item 6", "Squeeze": "Queue 1 item 6",
     "Transpose": "Queue 1 item 6", "OneHot": "Queue 1 item 6", "MFCC": "Queue 1 item 7",
-    "OverlapAdd": "Queue 1 item 9", "RealtimeSTFT": "Queue 1 item 9",
-    "RealtimeDGT": "Queue 1 item 9",
 }
 
 

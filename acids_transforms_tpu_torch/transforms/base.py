@@ -10,14 +10,18 @@
   package takes a PRNG key.
 * Every transform is built for one device (``device=None`` means ``"cuda"``
   and raises without a card); an input on another device raises.
-
-The streaming protocol (``init_state`` / ``step``) is not ported yet (ROADMAP
-Queue 1 item 9).
+* The streaming protocol: ``init_state`` / ``step`` / ``step_invert`` thread
+  an explicit state through a chunked loop (``streaming.py``).  A chain's
+  state is a list with one entry per child: a dict of tensors for a stateful
+  child (``OverlapAdd``, ``RealtimeSTFT``), ``None`` for a stateless one.
+  Where the JAX package splits a PRNG key per child and per chunk, the port
+  threads one ``torch.Generator`` through the children in order: a child that
+  draws nothing consumes nothing, so no per-child split has to be counted.
 """
 from __future__ import annotations
 
 import copy
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -117,6 +121,30 @@ class AudioTransform(nn.Module):
 
     def get_inversion_modes(self) -> Optional[List[str]]:
         return None
+
+    def forward_with_time(self, x: torch.Tensor, time: torch.Tensor):
+        """Forward pass threading per-chunk start times (default: unchanged)."""
+        return self.forward(x), time
+
+    # ---------------------------------------------------------------- streaming
+    def realtime(self) -> "AudioTransform":
+        """The streaming variant of this transform (default: itself)."""
+        return self
+
+    def init_state(self, batch_shape: Tuple[int, ...] = (), mode: Optional[str] = None):
+        """Fresh streaming state (default: stateless, ``None``).  ``mode`` (an
+        inversion-mode name) lets a stateful transform allocate only the carry
+        that mode needs."""
+        return None
+
+    def step(self, state, x: torch.Tensor):
+        """One chunk of the streaming forward: ``(state, x) -> (state, y)``."""
+        return state, self.forward(x)
+
+    def step_invert(self, state, y: torch.Tensor, inversion_mode: Optional[str] = None,
+                    generator: Optional[torch.Generator] = None):
+        """One chunk of the streaming inverse: ``(state, y) -> (state, x)``."""
+        return state, self.invert(y, inversion_mode=inversion_mode, generator=generator)
 
     #: every inversion-mode name any transform understands -- distinguishes
     #: "mode meant for another child in the chain" from a typo in
@@ -268,3 +296,33 @@ class ComposeAudioTransform(AudioTransform):
         if idx is None:
             return [t.get_inversion_modes() for t in self.transforms]
         return self.transforms[idx].get_inversion_modes()
+
+    def forward_with_time(self, x, time):
+        for t in self.transforms:
+            x, time = t.forward_with_time(x, time)
+        return x, time
+
+    # -------------------------------------------------------------- streaming
+    def realtime(self) -> "ComposeAudioTransform":
+        return ComposeAudioTransform([t.realtime() for t in self.transforms], sr=self.sr,
+                                     device=self.device)
+
+    def init_state(self, batch_shape: Tuple[int, ...] = (), mode: Optional[str] = None):
+        return [t.init_state(batch_shape, mode=mode) for t in self.transforms]
+
+    def step(self, state, x):
+        new_states = []
+        for t, st in zip(self.transforms, state):
+            st, x = t.step(st, x)
+            new_states.append(st)
+        return new_states, x
+
+    def step_invert(self, state, y, inversion_mode=None, generator=None):
+        """Right to left, the one ``generator`` handed to every child."""
+        self._register_child_modes()
+        new_states = list(state)
+        for i in range(len(self.transforms) - 1, -1, -1):
+            new_states[i], y = self.transforms[i].step_invert(
+                state[i], y, inversion_mode=inversion_mode, generator=generator
+            )
+        return new_states, y

@@ -1,11 +1,18 @@
-"""Offline STFT transform (twin of the JAX ``transforms/stft.py:STFT``).
+"""STFT transform pair: offline and per-frame streaming (twin of the JAX
+``transforms/stft.py``).
 
-Ported: forward, the complex least-squares inversion and the phaseless modes
-``griffin_lim``, ``pghi``, ``pghi_bidir``, ``pghi_exact``, ``pghi_gl``,
-``random`` and ``keep_input``; on a CUDA tensor ``griffin_lim`` and
-``pghi_gl`` run the Griffin-Lim kernels of ``ops/cuda/glstep.py``.
-``sinebank`` and ``RealtimeSTFT`` raise ``NotImplementedError`` until their
-slice (ROADMAP Queue 1 items 8 and 9).
+``STFT`` ported: forward, the complex least-squares inversion and the
+phaseless modes ``griffin_lim``, ``pghi``, ``pghi_bidir``, ``pghi_exact``,
+``pghi_gl``, ``random`` and ``keep_input``; on a CUDA tensor ``griffin_lim``
+and ``pghi_gl`` run the Griffin-Lim kernels of ``ops/cuda/glstep.py``.
+``sinebank`` raises ``NotImplementedError`` until its slice (ROADMAP Queue 1
+item 8).
+
+``RealtimeSTFT`` ported: the per-frame forward, the dual-window synthesis and
+the streaming inversion (``init_state`` / ``step_invert``) of the complex
+spectrum and of the modes ``keep_input`` and ``random``.  Its streaming modes
+``pghi``, ``pghi_gl`` and ``sinebank`` (and their carried state) raise
+``NotImplementedError`` until the next slice (ROADMAP Queue 1 item 9b).
 
 The PGHI modes work on any named window through its effective
 time-frequency ratio (``gamma``).  On a CUDA tensor ``pghi`` / ``pghi_bidir``
@@ -15,20 +22,28 @@ the bidirectional order exists for the card).
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..ops.fft import istft, stft as stft_op, taps_for_window
+from ..ops.fft import irfft_frames, istft, rfft_frames, stft as stft_op, taps_for_window
+from ..ops.framing import frame
 from ..ops.griffinlim import griffin_lim
 from ..ops.pghi import pghi_heap_numpy, pghi_scan, random_angles
-from ..ops.windows import get_window, window_gamma
+from ..ops.windows import dual_window, get_window, window_gamma
 from .base import AudioTransform
 
-__all__ = ["STFT"]
+__all__ = ["STFT", "RealtimeSTFT"]
 
 _UNPORTED_MODES = {"sinebank": "Queue 1 item 8 (needs ops/interp.py)"}
+#: streaming modes whose carried state comes with the next slice
+_UNPORTED_STREAM_MODES = {
+    "pghi": "Queue 1 item 9b (pghi_stream)",
+    "pghi_exact": "Queue 1 item 9b (pghi_stream)",
+    "pghi_gl": "Queue 1 item 9b (pghi_gl_stream)",
+    "sinebank": "Queue 1 item 9b (sinebank_stream)",
+}
 
 
 class STFT(AudioTransform):
@@ -149,6 +164,13 @@ class STFT(AudioTransform):
         )
         self._stash_phase(spec)
         return spec
+
+    def forward_with_time(self, x: torch.Tensor, time: torch.Tensor):
+        spec = self.forward(x)
+        shifts = torch.arange(spec.shape[-2], device=spec.device, dtype=torch.float32) * (
+            self.hop_length / self.sr
+        )
+        return spec, shifts + time[..., None]
 
     # ---------------------------------------------------------------- invert
     def invert(
@@ -307,7 +329,234 @@ class STFT(AudioTransform):
             fused=fused,
         )
 
+    def realtime(self) -> "RealtimeSTFT":
+        mode = (
+            self.inversion_mode
+            if self.inversion_mode in RealtimeSTFT.get_inversion_modes()
+            else "random"
+        )
+        return RealtimeSTFT(
+            sr=self.sr, n_fft=self.n_fft, hop_length=self.hop_length, inversion_mode=mode,
+            window=self.window_name, impl=self.impl, device=self.device,
+        )
+
     def extra_repr(self) -> str:
         return "n_fft=%d, hop_length=%d, inversion_mode=%s" % (
             self.n_fft, self.hop_length, self.inversion_mode,
         )
+
+
+class RealtimeSTFT(STFT):
+    """Per-frame streaming STFT.
+
+    ``forward`` maps already-framed chunks ``(..., n_fft)`` or ``(..., T,
+    n_fft)`` to spectra, ``rfft(x * window)``; inversion multiplies inverse
+    frames by ``inv_window``, ``overlap`` times the canonical dual window, so
+    behind an ``OverlapAdd`` the chain reconstructs at unity gain.
+
+    Streaming state is explicit (``init_state`` / ``invert_stream``, alias
+    ``step_invert``) and mode-minimal: the complex, ``keep_input`` and
+    ``random`` inversions carry nothing, so their state is an empty dict.
+    The eager ``invert`` keeps the state on ``self``.  ``batch_size``,
+    ``gl_iterations``, ``gl_context`` and ``lookahead_frames`` are the
+    streaming ``pghi_gl`` polish's settings, kept for the next slice.
+    """
+
+    def __init__(
+        self,
+        sr: int = 44100,
+        n_fft: int = 1024,
+        hop_length: int = 256,
+        inversion_mode: str = "random",
+        window: str = "hann",
+        impl: str = "auto",
+        seed: int = 0,
+        batch_size: int = 2,
+        gl_iterations: int = 16,
+        gl_context: Optional[int] = None,
+        lookahead_frames: int = 0,
+        device=None,
+    ):
+        super().__init__(
+            sr=sr, n_fft=n_fft, hop_length=hop_length, inversion_mode=inversion_mode,
+            window=window, impl=impl, seed=seed, gl_iterations=gl_iterations, device=device,
+        )
+        self.batch_size = int(batch_size)
+        #: committed frames pinned during the streaming pghi_gl polish
+        self.gl_context = (
+            int(gl_context) if gl_context is not None
+            else max(self.n_fft // self.hop_length - 1, 1)
+        )
+        #: frames the streaming pghi_gl commit is delayed by
+        self.lookahead_frames = int(lookahead_frames)
+        self._state: Optional[Dict[str, torch.Tensor]] = None
+
+    def _get_inv_window(self) -> torch.Tensor:
+        overlap = max(self.n_fft // self.hop_length, 1)
+        return float(overlap) * dual_window(self._get_window(), self.hop_length, device=self.device)
+
+    def propagate_mask(self, mask, x):
+        """Input is already framed (..., T, n_fft): a per-frame mask (..., T)
+        broadcasts to the spectra; anything else is not representable."""
+        if mask is None:
+            return None
+        if mask.shape[-1] == x.shape[-2]:
+            return mask[..., :, None]
+        return None
+
+    @staticmethod
+    def get_inversion_modes() -> List[str]:
+        return ["keep_input", "random", "sinebank", "pghi", "pghi_gl"]
+
+    def _refuse_unported(self, mode: Optional[str]) -> None:
+        if mode in _UNPORTED_STREAM_MODES:
+            raise NotImplementedError(
+                "streaming inversion mode %r of %s is not ported yet (ROADMAP %s)"
+                % (mode, type(self).__name__, _UNPORTED_STREAM_MODES[mode])
+            )
+
+    # ------------------------------------------------------------- streaming
+    def init_state(self, batch_shape: Tuple[int, ...] = (), mode: Optional[str] = None) -> Dict[str, torch.Tensor]:
+        """Fresh streaming-inversion state: mode-minimal, so the complex,
+        ``keep_input`` and ``random`` inversions get an empty dict.  ``mode=None``
+        resolves to the configured ``inversion_mode``; the modes whose carry
+        belongs to the next slice raise."""
+        mode = self._resolve_mode(mode)
+        self._refuse_unported(mode)
+        return {}
+
+    def reset(self, batch_shape: Tuple[int, ...] = (), mode: Optional[str] = None) -> None:
+        self._state = self.init_state(tuple(batch_shape), mode=mode)
+
+    # --------------------------------------------------------------- forward
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``(..., n_fft) -> complex (..., n_fft // 2 + 1)`` (frames already cut)."""
+        self._check(x)
+        spec = rfft_frames(x * self.window, impl=self.impl)
+        self._stash_phase(spec)
+        return spec
+
+    def forward_with_time(self, x, time):
+        """Per-frame times of framed chunks: a ``time`` that carries one value
+        per frame passes through; chunk start times get the offline STFT's
+        frame shifts added."""
+        spec = self.forward(x)
+        if x.ndim >= 2:
+            T = x.shape[-2]
+            if time.ndim == 0 or time.shape[-1] != T:
+                shifts = torch.arange(T, device=spec.device, dtype=torch.float32) * (
+                    self.hop_length / self.sr
+                )
+                time = shifts + (time[..., None] if time.ndim else time)
+        return spec, time
+
+    # ---------------------------------------------------------------- invert
+    def invert(
+        self,
+        x: torch.Tensor,
+        inversion_mode: Optional[str] = None,
+        generator: Optional[torch.Generator] = None,
+        phase: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        self._check(x)
+        if not x.is_complex():
+            return self.invert_without_phase(x, inversion_mode, generator=generator, phase=phase)
+        return irfft_frames(x, n_fft=self.n_fft, impl=self.impl) * self.inv_window
+
+    def invert_without_phase(
+        self,
+        mag: torch.Tensor,
+        inversion_mode: Optional[str] = None,
+        generator: Optional[torch.Generator] = None,
+        phase: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Frames ``(..., T, n_fft)`` from magnitudes ``(..., T, F)``:
+        ``keep_input`` takes ``phase`` or the last forward's, ``random``
+        draws from ``generator`` (none: one derived from ``seed``)."""
+        mode = self._resolve_mode(inversion_mode)
+        self._refuse_unported(mode)
+        if mode == "keep_input":
+            phase = self._recall_phase(mag) if phase is None else phase
+            if phase is None:
+                phase = self._angles(mag, generator, None)
+        elif mode == "random":
+            phase = self._angles(mag, generator, None)
+        else:
+            raise ValueError("inversion mode %s not valid." % mode)
+        spec = torch.polar(mag, phase.to(mag.dtype))
+        # the eager state follows the session (the PGHI frame history that a
+        # later eager mode switch would read comes with the next slice)
+        self._state = self._update_buffers(self._eager_state(mag, mode=mode), spec)
+        return self.invert(spec)
+
+    def invert_stream(
+        self,
+        state: Dict[str, torch.Tensor],
+        x: torch.Tensor,
+        inversion_mode: Optional[str] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """Pure streaming inversion step: ``(state, spec_or_mag (..., T, F))
+        -> (state, frames (..., T, n_fft))``."""
+        if x.is_complex():
+            return self._update_buffers(state, x), self.invert(x)
+        mode = self._resolve_mode(inversion_mode)
+        self._refuse_unported(mode)
+        return state, self.invert(x, inversion_mode=mode, generator=generator)
+
+    step_invert = invert_stream
+
+    def _update_buffers(self, state: Dict[str, torch.Tensor], spec: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Carry the trailing 2 magnitude frames and the last phase frame;
+        a no-op for states without PGHI history (the modes of this slice)."""
+        if "mag_buffer" not in state:
+            return state
+        new = dict(state)
+        mag = spec.abs()
+        if spec.shape[-2] >= 2:
+            new["mag_buffer"] = mag[..., -2:, :]
+        else:
+            new["mag_buffer"] = torch.cat([state["mag_buffer"][..., 1:, :], mag[..., -1:, :]], dim=-2)
+        new["phase_buffer"] = torch.angle(spec[..., -1, :])
+        return new
+
+    def _eager_state(self, mag: torch.Tensor, mode: Optional[str] = None) -> Dict[str, torch.Tensor]:
+        """The stored eager state reconciled with ``mode``'s: missing or
+        batch-mismatched entries are fresh, matching ones survive."""
+        template = self.init_state(tuple(mag.shape[:-2]), mode=mode)
+        st = self._state
+        if st is None:
+            return template
+        out = dict(st)
+        for k, v in template.items():
+            prev = st.get(k)
+            out[k] = prev if prev is not None and prev.shape == v.shape else v
+        return out
+
+    def realtime(self) -> "RealtimeSTFT":
+        return self
+
+    # ------------------------------------------------------------- test hooks
+    def test_forward(self, x: torch.Tensor, time=None):
+        """Frame the signal and run the per-frame forward."""
+        out = self.forward(frame(x, self.n_fft, self.hop_length, -1))
+        return out if time is None else (out, time)
+
+    def test_inversion(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The canonical streaming loop (OverlapAdd -> forward -> invert ->
+        OverlapAdd.invert over chunks of ``4 n_fft``) for the complex
+        spectrum and each ported phaseless mode."""
+        from .oadd import OverlapAdd
+
+        chunk = 4 * self.n_fft
+        outs = {}
+        for mode in (None, "keep_input", "random"):
+            oadd = OverlapAdd(self.n_fft, self.hop_length, sr=self.sr, device=self.device)
+            self.reset(x.shape[:-1], mode=mode or "random")
+            pieces = []
+            for i in range(x.shape[-1] // chunk):
+                spec = self.forward(oadd.forward(x[..., i * chunk: (i + 1) * chunk]))
+                y = self.invert(spec) if mode is None else self.invert(spec.abs(), inversion_mode=mode)
+                pieces.append(oadd.invert(y))
+            outs["direct" if mode is None else mode] = torch.cat(pieces, -1)
+        return outs

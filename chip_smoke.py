@@ -10,8 +10,11 @@ default): the flagship log-mel chain (fit -> fused forward -> Griffin-Lim
 invert), the DGT magnitude chain (fit -> full-K fused forward -> PGHI invert,
 then the same magnitudes through ``pghi_gl``: PGHI seed and 30 full-K
 Griffin-Lim steps), the DGT + PolarIF representation chain (fit -> fused
-two-channel forward -> IF integration and inverse DGT) and STFT + Polar (fit
--> fused forward).  It shows by the launch counters that each path went
+two-channel forward -> IF integration and inverse DGT), STFT + Polar (fit
+-> fused forward), and the streaming chain OverlapAdd + RealtimeSTFT on 64
+concurrent mono sessions of 4 s (``--streams``): encode, the complex and the
+random roundtrip, the random decode and the [.., Magnitude] random roundtrip,
+each as one whole-session kernel, held against the generic chunk scan.  It shows by the launch counters that each path went
 through its kernels, times them, and prints
 
 * a line with one JSON object ``{"kernels": [...]}`` (per kernel: launches on
@@ -371,9 +374,246 @@ def check_pghi(name, mag, n_fft, hop, window, gamma, seed, results, n64=4):
         require(e_i <= max(1e-4, tol), f"K {name} inversion disagrees with plain")
 
 
+def crel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """rel_err of two complex tensors over their (re, im) parts."""
+    return rel_err(torch.view_as_real(a), torch.view_as_real(b))
+
+
+STREAM_CHUNK = 4096
+STREAM_LEN = 43 * STREAM_CHUNK   # 4 s at 44.1 kHz in whole chunks (bench.py:524)
+
+
+def stream_phase(args, dev, gen, errs, counts, other_wrappers):
+    """Phase 4f: the streaming chain OverlapAdd(1024, 256) + RealtimeSTFT(1024,
+    256, hann) on ``args.streams`` mono sessions of 4 s, chunks of 4096.
+
+    Drives the four routes through the entry points (encode ``scan_forward``,
+    the complex and the random ``scan_roundtrip``, the random ``scan_invert``)
+    and the 3-chain random roundtrip, each with every launch counter at 0
+    just before and read just after, and holds each against the generic chunk
+    scan on the same input with a generator seeded alike (which draws the
+    same angles): within 1e-4 of the output's largest value (the JAX gate,
+    ``tests/test_streaming.py:271``), the complex roundtrip's SNR at the
+    ``bench.py:527-530`` delay and trim at least 100 dB, the random modes'
+    spectral convergence (``bench.py:566-575``) within ``1.1 s + 1e-3`` of the
+    generic scan's.  Then B = 1, RealtimeDGT at B = 8, each kernel against
+    its plain version at the main shape, 512/128 and 2048/512, and the routes'
+    times beside the generic scan's at B = 1, 8 and 64.  Returns what phase 5
+    needs to time the kernels."""
+    from acids_transforms_tpu_torch import streaming
+    from acids_transforms_tpu_torch import transforms as T
+    from acids_transforms_tpu_torch.ops.cuda import stream_step as ss
+
+    SB, SL, CH = args.streams, STREAM_LEN, STREAM_CHUNK
+    T_C = CH // HOP
+    n_sf = SL // CH * T_C
+    F = N_FFT // 2 + 1
+    delay = N_FFT - HOP
+    log(f"[4f] streaming: OverlapAdd({N_FFT}, {HOP}) + RealtimeSTFT({N_FFT}, {HOP}, hann) on {SB} mono "
+        f"sessions of {SL} samples, chunks of {CH} ({n_sf} frames a session)")
+    sx = make_audio(SB, SL, gen, channels=1)[:, 0].contiguous()
+    s_chain = T.OverlapAdd(N_FFT, HOP) + T.RealtimeSTFT(n_fft=N_FFT, hop_length=HOP)
+    f_chain = s_chain + T.Magnitude(mode="unipolar", contrast="log1p", mel=False, n_fft=N_FFT)
+    s_rt = s_chain[1]
+
+    def zero_all():
+        for w in other_wrappers + (ss,):
+            w.reset_launches()
+
+    def others():
+        return sum(sum(w.launches.values()) for w in other_wrappers)
+
+    def route(label, fn, expect, main=True):
+        """One run through the entry point, counters at 0 before and read
+        after; the main routes' launches go into the kernels line."""
+        zero_all()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        got = {k: v for k, v in ss.launches.items() if v}
+        log(f"  {label}: {ms:.1f} ms, launches {got}")
+        require(got == expect and others() == 0, f"{label}: expected the launches {expect}, got {got}")
+        for k, v in got.items():
+            counts[k] += v if main else 0
+        return out
+
+    def generic(label, fn):
+        zero_all()
+        out = fn()
+        torch.cuda.synchronize()
+        require(sum(ss.launches.values()) == 0 and others() == 0, f"{label}: the generic scan launched a kernel")
+        return out
+
+    def sgen(k):
+        return torch.Generator(device=dev).manual_seed(args.seed + 60 + k)
+
+    win = torch.hann_window(N_FFT, device=dev)
+
+    def offline_mag(v):
+        return torch.stft(v, N_FFT, HOP, window=win, center=True, pad_mode="reflect",
+                          return_complex=True).abs()
+
+    def make_sc(x):
+        ref = offline_mag(x[..., : SL - delay])
+
+        def sc_of(y):
+            m = offline_mag(y[..., delay:SL])
+            n = min(m.shape[-1], ref.shape[-1]) - 2
+            return (torch.linalg.norm(m[..., 2:n] - ref[..., 2:n]) / torch.linalg.norm(ref[..., 2:n])).item()
+        return sc_of
+
+    def snr_of(x, y):
+        ref, out = x[..., : SL - delay - 2048], y[..., delay: SL - 2048]
+        return 10 * math.log10((ref ** 2).sum().item() / max(((out - ref) ** 2).sum().item(), 1e-300))
+
+    for k in ("session_encode", "session_roundtrip", "session_random_roundtrip", "session_random_decode"):
+        counts[k] = 0
+    sc_of = make_sc(sx)
+    # encode
+    spec_k, st_k = route("encode: scan_forward", lambda: streaming.scan_forward(s_chain, sx, CH),
+                         {"session_encode": 1})
+    spec_g, st_g = generic("encode", lambda: streaming.scan_forward(s_chain, sx, CH, backend="generic"))
+    e = crel(spec_k, spec_g)
+    same_state = (st_k[1] == st_g[1] == {} and all(torch.equal(st_k[0][n], st_g[0][n]) for n in st_g[0]))
+    log(f"    kernel route vs generic scan: rel {e:.3e} (tol 1e-04); final state equal: {same_state}")
+    require(tuple(spec_k.shape) == (SB, n_sf, F) and torch.isfinite(torch.view_as_real(spec_k)).all().item(),
+            f"encode output {tuple(spec_k.shape)}")
+    require(e <= 1e-4 and same_state, "encode route differs from the generic scan")
+    del spec_g
+    # complex roundtrip
+    y_k = route("complex roundtrip: scan_roundtrip", lambda: streaming.scan_roundtrip(s_chain, sx, CH),
+                {"session_roundtrip": 1})
+    y_g = generic("complex roundtrip", lambda: streaming.scan_roundtrip(s_chain, sx, CH, backend="generic"))
+    e = rel_err(y_k, y_g)
+    snr_k, snr_g = snr_of(sx, y_k), snr_of(sx, y_g)
+    log(f"    kernel route vs generic scan: rel {e:.3e} (tol 1e-04); SNR after the {delay}-sample delay: kernel "
+        f"{snr_k:.2f} dB, generic {snr_g:.2f} dB (must be >= 100 and >= generic - 1)")
+    require(tuple(y_k.shape) == (SB, SL) and torch.isfinite(y_k).all().item(), f"roundtrip output {tuple(y_k.shape)}")
+    require(e <= 1e-4 and snr_k >= 100.0 and snr_k >= snr_g - 1.0, "complex roundtrip out of budget")
+    quality = {"snr_kernel_db": snr_k, "snr_generic_db": snr_g}
+
+    def random_pair(label, kernel_fn, generic_fn, expect):
+        y1 = route(label, kernel_fn, expect)
+        y2 = generic(label, generic_fn)
+        e = rel_err(y1, y2)
+        s1, s2 = sc_of(y1), sc_of(y2)
+        log(f"    kernel route vs generic scan (same seed): rel {e:.3e} (tol 1e-04); spectral convergence "
+            f"kernel {s1:.5f}, generic {s2:.5f} (must be <= {1.1 * s2 + 1e-3:.5f})")
+        require(tuple(y1.shape) == tuple(y2.shape) and torch.isfinite(y1).all().item(), f"{label}: bad output")
+        require(e <= 1e-4 and s1 <= 1.1 * s2 + 1e-3, f"{label}: differs from the generic scan")
+        return y1, s1, s2
+
+    _, quality["sc_random_kernel"], quality["sc_random_generic"] = random_pair(
+        "random roundtrip: scan_roundtrip(random)",
+        lambda: streaming.scan_roundtrip(s_chain, sx, CH, "random", generator=sgen(1)),
+        lambda: streaming.scan_roundtrip(s_chain, sx, CH, "random", generator=sgen(1), backend="generic"),
+        {"session_random_roundtrip": 1})
+    mags = spec_k.abs()
+    _, quality["sc_decode_kernel"], quality["sc_decode_generic"] = random_pair(
+        "random decode: scan_invert(random)",
+        lambda: streaming.scan_invert(s_chain, mags, T_C, "random", generator=sgen(2)),
+        lambda: streaming.scan_invert(s_chain, mags, T_C, "random", generator=sgen(2), backend="generic"),
+        {"session_random_decode": 1})
+    random_pair(
+        "3-chain [OverlapAdd, RealtimeSTFT, Magnitude] random roundtrip",
+        lambda: streaming.scan_roundtrip(f_chain, sx, CH, "random", generator=sgen(3)),
+        lambda: streaming.scan_roundtrip(f_chain, sx, CH, "random", generator=sgen(3), backend="generic"),
+        {"session_encode": 1, "session_random_decode": 1})
+    # one stream: under one wave of the card's SMs
+    x1, sc1 = sx[:1], make_sc(sx[:1])
+    y1 = route("B=1 complex roundtrip", lambda: streaming.scan_roundtrip(s_chain, x1, CH), {"session_roundtrip": 1},
+               main=False)
+    e1 = rel_err(y1, generic("B=1", lambda: streaming.scan_roundtrip(s_chain, x1, CH, backend="generic")))
+    y1m = route("B=1 random roundtrip", lambda: streaming.scan_roundtrip(s_chain, x1, CH, "random", generator=sgen(4)),
+                {"session_random_roundtrip": 1}, main=False)
+    y1g = generic("B=1 random", lambda: streaming.scan_roundtrip(s_chain, x1, CH, "random", generator=sgen(4),
+                                                                   backend="generic"))
+    e1m = rel_err(y1m, y1g)
+    log(f"    B=1 vs generic scan: complex rel {e1:.3e}, random rel {e1m:.3e} (tol 1e-04), spectral convergence "
+        f"{sc1(y1m):.5f} / {sc1(y1g):.5f}")
+    require(e1 <= 1e-4 and e1m <= 1e-4, "B=1 sessions differ from the generic scan")
+    # the gaussian window on the full-K path
+    d_chain = T.OverlapAdd(N_FFT, HOP) + T.RealtimeDGT(n_fft=N_FFT, hop_length=HOP, inversion_mode="random")
+    x8 = sx[:8]
+    yd = route("RealtimeDGT B=8 complex roundtrip", lambda: streaming.scan_roundtrip(d_chain, x8, CH),
+               {"session_roundtrip": 1}, main=False)
+    ydg = generic("DGT", lambda: streaming.scan_roundtrip(d_chain, x8, CH, backend="generic"))
+    e_d, snr_d, snr_dg = rel_err(yd, ydg), snr_of(x8, yd), snr_of(x8, ydg)
+    log(f"    vs generic scan: rel {e_d:.3e} (tol 1e-04); SNR kernel {snr_d:.2f} dB, generic {snr_dg:.2f} dB "
+        f"(must be >= generic - 1)")
+    require(e_d <= 1e-4 and snr_d >= snr_dg - 1.0, "RealtimeDGT session differs from the generic scan")
+    quality.update(snr_dgt_kernel_db=snr_d, snr_dgt_generic_db=snr_dg)
+    del y1, y1m, y1g, yd, ydg, y_g
+
+    # each kernel against its plain version: fp32 sums in another order than
+    # cuBLAS (contractions of n_fft for the analysis, overlap x Kp for the
+    # synthesis), a few 1e-7 of the largest value; 2e-5 leaves a decade
+    def check_kernels(label, n_fft, hop, x, chunk):
+        oadd, rt = T.OverlapAdd(n_fft, hop), T.RealtimeSTFT(n_fft=n_fft, hop_length=hop)
+        chain = oadd + rt
+        Fb = n_fft // 2 + 1
+        n_chunks = -(-x.shape[-1] // chunk)
+        Tn = n_chunks * chunk // hop
+        ang = ss.session_angles((x.shape[0],), n_chunks, chunk // hop, Fb, dev, sgen(5))
+        re, im = ss.session_encode_reference(x, rt.window, n_fft, hop, Tn)
+        spec, _ = ss.make_fused_forward_session(chain, chunk)(x)
+        mag = torch.sqrt(re * re + im * im)
+        gain = oadd.gain_compensation
+        pairs = {
+            "R": (torch.view_as_real(spec), torch.stack([re, im], dim=-1)),
+            "L": (ss.make_fused_roundtrip(chain, chunk)(x),
+                  ss.session_roundtrip_reference(x, rt.window, rt.inv_window, gain, n_fft, hop, Tn)),
+            "M": (ss.make_fused_random_roundtrip(chain, chunk, angles=ang)(x),
+                  ss.session_roundtrip_reference(x, rt.window, rt.inv_window, gain, n_fft, hop, Tn, angles=ang)),
+            "P": (ss.make_fused_random_invert(chain, chunk // hop, angles=ang)(mag),
+                  ss.session_decode_reference(mag, ang, rt.inv_window, gain, n_fft, hop)),
+        }
+        torch.cuda.synchronize()
+        msg = []
+        for key, (k_out, p_out) in pairs.items():
+            e = rel_err(k_out, p_out)
+            msg.append(f"{key} {e:.3e}")
+            require(k_out.shape == p_out.shape and torch.isfinite(k_out).all().item(), f"{key} {label}: bad output")
+            require(e <= 2e-5, f"{key} {label} disagrees with plain")
+            errs[key] = max(errs.get(key, 0.0), abs_err(k_out, p_out))
+        log(f"  kernels vs plain, {label} (blocks: encode {ss._pick_rows('encode', n_fft, hop)} frames, "
+            f"roundtrip {ss._pick_rows('roundtrip', n_fft, hop)} / decode {ss._pick_rows('decode', n_fft, hop)} "
+            f"chunks): rel {', '.join(msg)} (tol 2e-05)")
+
+    check_kernels(f"main shape {SB} x {SL}", N_FFT, HOP, sx, CH)
+    check_kernels("512/128, 3 x 20000 (ragged)", 512, 128, sx[:3, :20000].contiguous(), 2048)
+    check_kernels("2048/512, 2 x 30000 (ragged)", 2048, 512, sx[:2, :30000].contiguous(), 4096)
+
+    # the routes through the entry points beside the generic scan, B = 1, 8, 64
+    log("  route times (CUDA events around the entry point, median of 3): kernel route / generic scan")
+    route_ms = {}
+    for b in sorted({1, 8, SB}):
+        xb, mb = sx[:b], mags[:b]
+        rows = (
+            ("encode", lambda: streaming.scan_forward(s_chain, xb, CH),
+             lambda: streaming.scan_forward(s_chain, xb, CH, backend="generic")),
+            ("complex roundtrip", lambda: streaming.scan_roundtrip(s_chain, xb, CH),
+             lambda: streaming.scan_roundtrip(s_chain, xb, CH, backend="generic")),
+            ("random roundtrip", lambda: streaming.scan_roundtrip(s_chain, xb, CH, "random", generator=sgen(6)),
+             lambda: streaming.scan_roundtrip(s_chain, xb, CH, "random", generator=sgen(6), backend="generic")),
+            ("random decode", lambda: streaming.scan_invert(s_chain, mb, T_C, "random", generator=sgen(7)),
+             lambda: streaming.scan_invert(s_chain, mb, T_C, "random", generator=sgen(7), backend="generic")),
+        )
+        for name, kfn, gfn in rows:
+            k_ms, g_ms = time_ms(kfn, 3, 1), time_ms(gfn, 3, 1)
+            route_ms[(name, b)] = (k_ms, g_ms)
+            log(f"    B={b:3d} {name:18s}: {k_ms:9.3f} ms / {g_ms:9.3f} ms ({g_ms / k_ms:.2f}x)")
+    log("  stream quality: " + json.dumps({k: round(v, 6) for k, v in quality.items()}))
+    return dict(sx=sx, mags=mags.contiguous(), rt=s_rt, chain=s_chain, n_frames=n_sf, ss=ss,
+                angles=ss.session_angles((SB,), SL // CH, T_C, F, dev, sgen(8)))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=128, help="stereo clips on the main path")
+    ap.add_argument("--streams", type=int, default=64, help="mono streaming sessions of 4 s (phase 4f)")
     ap.add_argument("--seconds", type=float, default=4.0, help="clip length")
     ap.add_argument("--repeats", type=int, default=5, help="timed repeats per kernel (median)")
     ap.add_argument("--seed", type=int, default=0)
@@ -435,6 +675,16 @@ def main() -> int:
             require(lib.att_gl_fullk_smem_bytes(rows, ov_s, hop_s, kp)
                     == glstep._fullk_smem_bytes(rows, ov_s, hop_s, kp),
                     "full-K GL shared-memory size: wrapper and source disagree")
+    from acids_transforms_tpu_torch.ops.cuda import stream_step as ss
+
+    for n_fft_s, hop_s in ((N_FFT, HOP), (512, 128), (2048, 512), (4096, 1024), (1024, 128)):
+        ov_s, kp, kn = n_fft_s // hop_s, ss._k_padded(n_fft_s // 2 + 1), ss._k_analysis(n_fft_s)
+        for rows in (1, 7, 16, 32):
+            require(lib.att_session_encode_smem_bytes(rows, hop_s, kn) == ss._encode_smem_bytes(rows, hop_s, kn)
+                    and lib.att_session_roundtrip_smem_bytes(rows, ov_s, hop_s, kn, kp)
+                    == ss._roundtrip_smem_bytes(rows, ov_s, hop_s, kn, kp)
+                    and lib.att_session_decode_smem_bytes(rows, ov_s, kp) == ss._decode_smem_bytes(rows, ov_s, kp),
+                    "session kernels' shared-memory size: wrapper and source disagree")
 
     # ------------------------------------------------ 3. kernels vs plain
     log("[3] each kernel against its plain PyTorch version on the card")
@@ -1070,6 +1320,9 @@ def main() -> int:
     require(s_j < bound, "pghi_gl through J converges worse than the eager loop")
     del rec_gl, rec_ge, ph0
 
+    # ------------------------------------------ 4f. streaming sessions
+    stream = stream_phase(args, dev, gen, errs, counts, (spectral, glstep, pghi_kernel))
+
     # ------------------------------------------------------------ 5. times
     log("[5] kernel times at the main-path shape (CUDA events, median of "
         f"{args.repeats} after warm-up)")
@@ -1369,6 +1622,82 @@ def main() -> int:
              plain=lambda: glstep.gl_momentum_step_fullk_reference(dgt_target, *j_st, j_env, N_FFT, HOP,
                                                                    dgt_f.inv_window, mom),
              library=lib_gl_fullk, bound=bound_of(gl_bytes, gl_need), ceiling=ceiling_of(j_flops)),
+    ]
+    # ---- the streaming sessions at phase 4f's shape (64 mono sessions of
+    # 4 s, 688 frames each).  Bounds: R reads the signal and writes the
+    # complex spectrum, one FFT and the window per frame; L reads the signal
+    # and writes the audio, two FFTs, both windows and the overlap-add; M adds
+    # the angles read and, per bin, |X|, a sincos and two products (26
+    # operations); P reads magnitudes and angles, writes the audio, one
+    # inverse FFT, the window, the overlap-add and 22 operations per bin.
+    # Their design runs the full-length products: the analysis of every
+    # frame a block holds (n_fft rounded to 32 x 128-bin column tiles, cos and
+    # sin) and the synthesis of 8 ceil(R / 8) chunks x overlap x Kp x hop per
+    # block.  The yardsticks (timed, used nowhere): torch.stft(center=False)
+    # on the padded rows; torch.fft.irfft x the synthesis window + fold.
+    ss = stream["ss"]
+    sx, s_rt, s_mags, s_ang, n_sf = (stream[k] for k in ("sx", "rt", "mags", "angles", "n_frames"))
+    SB = sx.shape[0]
+    s_wc, s_ws = ss._ana_basis(s_rt.window, N_FFT, ss._k_analysis(N_FFT))
+    s_syn = ss._syn_basis(s_rt.inv_window, float(ov), N_FFT, HOP)
+    s_fr = float(SB * n_sf)
+    s_fft = 2.5 * N_FFT * math.log2(N_FFT) * s_fr
+    s_in, s_out, s_spec = 4.0 * SB * STREAM_LEN, 4.0 * SB * n_sf * HOP, 8.0 * s_fr * F
+    kn, kp, n_ct = ss._k_analysis(N_FFT), ss._k_padded(F), -(-F // 128)
+    r_rt, r_dec = ss._pick_rows("roundtrip", N_FFT, HOP), ss._pick_rows("decode", N_FFT, HOP)
+    t_rt, t_dec = -(-n_sf // r_rt), -(-n_sf // r_dec)
+
+    def ana_flops(n_rows):
+        return 4.0 * n_rows * kn * 128 * n_ct
+
+    def syn_flops(tiles, rows):
+        return 2.0 * SB * tiles * 8 * -(-rows // 8) * ov * kp * HOP
+
+    rt_design = ana_flops(SB * (n_sf + t_rt * (ov - 1))) + syn_flops(t_rt, r_rt)
+    rt_need = 2 * s_fft + 3.0 * N_FFT * s_fr
+    s_syn_window = s_rt.inv_window / ov
+
+    def lib_encode():
+        rows = ss.session_rows(sx, N_FFT, HOP, n_sf)
+        return torch.stft(rows, N_FFT, HOP, window=s_rt.window, center=False, return_complex=True)
+
+    def lib_synth(S):
+        fr = torch.fft.irfft(S, n=N_FFT) * s_syn_window
+        y = torch.nn.functional.fold(fr.transpose(1, 2), (1, (n_sf - 1) * HOP + N_FFT), (1, N_FFT),
+                                     stride=(1, HOP))
+        return y.reshape(SB, -1)[:, : n_sf * HOP]
+
+    stream_src = "acids_transforms_tpu_torch/csrc/stream_step.cu"
+    stream_tpu = "acids_transforms_tpu/ops/pallas/stream_step.py"
+    specs += [
+        dict(key="R", name="session_encode", source=stream_src, replaces=stream_tpu + ":1670",
+             launches=counts["session_encode"],
+             run=lambda: ss._launch_encode(sx, s_wc, s_ws, N_FFT, HOP, n_sf),
+             plain=lambda: ss.session_encode_reference(sx, s_rt.window, N_FFT, HOP, n_sf),
+             library=lib_encode, bound=bound_of(s_in + s_spec, s_fft + N_FFT * s_fr),
+             ceiling=ceiling_of(ana_flops(s_fr))),
+        dict(key="L", name="session_roundtrip", source=stream_src, replaces=stream_tpu + ":211",
+             launches=counts["session_roundtrip"],
+             run=lambda: ss._launch_roundtrip(sx, None, s_wc, s_ws, s_syn, N_FFT, HOP, n_sf),
+             plain=lambda: ss.session_roundtrip_reference(sx, s_rt.window, s_rt.inv_window, float(ov), N_FFT,
+                                                          HOP, n_sf),
+             library=lambda: lib_synth(lib_encode().transpose(1, 2)),
+             bound=bound_of(s_in + s_out, rt_need), ceiling=ceiling_of(rt_design)),
+        dict(key="M", name="session_random_roundtrip", source=stream_src, replaces=stream_tpu + ":372",
+             launches=counts["session_random_roundtrip"],
+             run=lambda: ss._launch_roundtrip(sx, s_ang, s_wc, s_ws, s_syn, N_FFT, HOP, n_sf),
+             plain=lambda: ss.session_roundtrip_reference(sx, s_rt.window, s_rt.inv_window, float(ov), N_FFT,
+                                                          HOP, n_sf, angles=s_ang),
+             library=lambda: lib_synth(torch.polar(lib_encode().transpose(1, 2).abs(), s_ang)),
+             bound=bound_of(s_in + s_out + 4.0 * s_fr * F, rt_need + 26.0 * s_fr * F),
+             ceiling=ceiling_of(rt_design + 26.0 * s_fr * F)),
+        dict(key="P", name="session_random_decode", source=stream_src, replaces=stream_tpu + ":1328",
+             launches=counts["session_random_decode"],
+             run=lambda: ss._launch_decode(s_mags, s_ang, s_syn, N_FFT, HOP),
+             plain=lambda: ss.session_decode_reference(s_mags, s_ang, s_rt.inv_window, float(ov), N_FFT, HOP),
+             library=lambda: lib_synth(torch.polar(s_mags, s_ang)),
+             bound=bound_of(8.0 * s_fr * F + s_out, s_fft + 2.0 * N_FFT * s_fr + 22.0 * s_fr * F),
+             ceiling=ceiling_of(syn_flops(t_dec, r_dec) + 22.0 * s_fr * F)),
     ]
     kernels = []
     for s in specs:

@@ -156,8 +156,10 @@ def test_sinebank_and_realtime_still_raise(path):
     _, _, pc, y = path
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pc.invert(torch.as_tensor(y), inversion_mode="sinebank")
+    rt = pc[1].realtime()
+    assert isinstance(rt, PT.RealtimeDGT) and rt.inversion_mode == pc[1].inversion_mode
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pc[1].realtime()
+        rt.invert(torch.as_tensor(y).abs()[..., :8, :], inversion_mode="sinebank")
 
 
 def test_stft_hann_pghi_through_window_gamma():

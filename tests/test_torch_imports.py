@@ -29,6 +29,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import acids_transforms_tpu_torch.ops.cuda.pghi_kernel, acids_transforms_tpu_torch.ops.pghi\n"
         "import acids_transforms_tpu_torch.transforms.dgt, acids_transforms_tpu_torch.ops.phase\n"
         "import acids_transforms_tpu_torch.transforms.spectral_repr\n"
+        "import acids_transforms_tpu_torch.streaming, acids_transforms_tpu_torch.transforms.oadd\n"
+        "import acids_transforms_tpu_torch.ops.cuda.stream_step\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'jaxlib' or m.startswith('acids_transforms_tpu.') or m == 'acids_transforms_tpu']\n"
         "assert not bad, bad\n"
@@ -105,9 +107,9 @@ def test_chip_smoke_refuses_to_run_without_a_card():
 
 def test_kernel_sources_are_in_the_package():
     names = {p.name for p in (PORT / "csrc").iterdir()}
-    assert {"spectral.cu", "glstep.cu", "glstep_fullk.cu", "pghi.cu", "dft_common.cuh",
-            "synth_ola.cuh"} <= names
-    for name in ("spectral.cu", "glstep.cu", "glstep_fullk.cu", "pghi.cu"):
+    assert {"spectral.cu", "glstep.cu", "glstep_fullk.cu", "pghi.cu", "stream_step.cu",
+            "dft_common.cuh", "synth_ola.cuh"} <= names
+    for name in ("spectral.cu", "glstep.cu", "glstep_fullk.cu", "pghi.cu", "stream_step.cu"):
         text = (PORT / "csrc" / name).read_text()
         assert "Replaces" in text and "What bounds" in text and "Design" in text
 
@@ -155,3 +157,29 @@ def test_representation_entry_points_default_to_the_card():
     step, to_rows, _ = gk.make_gl_momentum_step_fullk(mag, 512, 128, torch.ones(512), 0.5)
     step(*[to_rows(a) for a in (torch.ones_like(mag), torch.zeros_like(mag), mag, mag)])
     assert all(v == 0 for v in sk.launches.values()) and all(v == 0 for v in gk.launches.values())
+
+
+def test_streaming_entry_points_default_to_the_card():
+    """The streaming classes run on the card unless asked otherwise, and the
+    session wrappers (R, L, M, P) take their plain versions only because the
+    tensor lies on the CPU: no launch is counted."""
+    import torch
+
+    from acids_transforms_tpu_torch import streaming
+    from acids_transforms_tpu_torch import transforms as T
+    from acids_transforms_tpu_torch.ops.cuda import stream_step as sk
+
+    if not torch.cuda.is_available():
+        for build in (lambda: T.OverlapAdd(512, 128), lambda: T.RealtimeSTFT(n_fft=512, hop_length=128),
+                      lambda: T.RealtimeDGT(n_fft=512, hop_length=128)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                build()
+    chain = T.OverlapAdd(512, 128, device="cpu") + T.RealtimeSTFT(n_fft=512, hop_length=128, device="cpu")
+    x = torch.zeros(1, 3000)
+    sk.reset_launches()
+    streaming.scan_forward(chain, x, 1024, backend="fused")
+    streaming.scan_roundtrip(chain, x, 1024, backend="fused")
+    streaming.scan_roundtrip(chain, x, 1024, "random", backend="fused")
+    streaming.scan_invert(chain, torch.ones(1, 20, 257), 8, "random", backend="fused")
+    assert all(v == 0 for v in sk.launches.values())
+    assert streaming.plan_roundtrip(chain, (1, 3000), 1024) == "complex"   # device None: the card
