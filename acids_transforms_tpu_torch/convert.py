@@ -23,8 +23,9 @@ leaves only); ``offset``, ``scale`` (Normalize); the pairs ``Polar``,
 :func:`load_jax_stream_state` carries a streaming session across: the state
 that the JAX package's ``chain.init_state`` / ``scan_forward`` return (one
 entry per child, a dict of arrays or ``None``), given as numpy arrays, becomes
-the port's, so ``streaming.scan_forward(..., state=...)`` resumes a session
-the JAX package started.
+the port's, so ``streaming.scan_forward(..., state=...)`` or a loop of
+``chain.step`` / ``step_invert`` resumes a session the JAX package started (a
+``pghi`` session's RT-PGHI history included).
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ import torch
 
 from .transforms.base import AudioTransform, ComposeAudioTransform
 from .transforms.norm import Normalize
-from .transforms.stft import STFT
+from .transforms.stft import STFT, RealtimeSTFT
 
 __all__ = ["load_jax_state", "load_jax_stream_state", "state_from_leaves"]
 
@@ -115,11 +116,13 @@ def load_jax_stream_state(
 
     ``state`` holds one entry per child of the chain, as the JAX chain's
     ``init_state`` / ``scan_forward`` return it: a mapping of leaf name to
-    array (``input_buffer`` / ``output_buffer`` of OverlapAdd, the carry of a
-    ``Realtime*`` transform) or ``None`` for a stateless child.  Arrays land on
-    the chain's device as float32.  Raises when the number of entries, the
-    keys or the trailing (non-batch) shapes do not match the state the port
-    chain allocates itself."""
+    array (``input_buffer`` / ``output_buffer`` of OverlapAdd; the carry of a
+    ``Realtime*`` transform: nothing, or the RT-PGHI history ``mag_buffer
+    (..., 2, F)`` / ``phase_buffer (..., F)`` of a ``pghi`` session) or
+    ``None`` for a stateless child.  A ``Realtime*`` entry's keys say its
+    session's mode.  Arrays land on the chain's device as float32.  Raises
+    when the number of entries, the keys, the trailing (non-batch) shapes or
+    the batch shapes do not match the state the port chain allocates itself."""
     children = (
         list(port_chain.transforms)
         if isinstance(port_chain, ComposeAudioTransform)
@@ -135,19 +138,25 @@ def load_jax_stream_state(
             out.append(None)
             continue
         arrays = {k: np.asarray(v) for k, v in entry.items()}
-        batch_shape = next(iter(arrays.values())).shape[:-1] if arrays else ()
-        template = child.init_state(batch_shape)
+        mode = None
+        if isinstance(child, RealtimeSTFT):
+            mode = "pghi" if "mag_buffer" in arrays else "random"
+        template = child.init_state((), mode=mode)
         if template is None or set(template) != set(arrays):
             raise ValueError(
                 "entry %d has keys %s, %s allocates %s"
                 % (i, sorted(arrays), type(child).__name__, None if template is None else sorted(template))
             )
-        conv = {}
+        conv, batch = {}, set()
         for k, v in arrays.items():
             t = torch.as_tensor(np.array(v, dtype=np.float32), device=child.device)
-            if tuple(t.shape[-1:]) != tuple(template[k].shape[-1:]):
-                raise ValueError("entry %d.%s: shape %s does not fit the port's %s"
-                                 % (i, k, tuple(t.shape), tuple(template[k].shape)))
+            tail = tuple(template[k].shape)
+            if t.ndim < len(tail) or tuple(t.shape[t.ndim - len(tail):]) != tail:
+                raise ValueError("entry %d.%s: shape %s does not fit the port's (..., %s)"
+                                 % (i, k, tuple(t.shape), ", ".join(map(str, tail))))
+            batch.add(tuple(t.shape[: t.ndim - len(tail)]))
             conv[k] = t
+        if len(batch) > 1:
+            raise ValueError("entry %d: its arrays have the batch shapes %s" % (i, sorted(batch)))
         out.append(conv)
     return out

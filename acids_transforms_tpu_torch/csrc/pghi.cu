@@ -5,7 +5,12 @@
 //   pghi_phases_kernel      <- _pghi_invert_kernel, recurrence part (emit_phases, bidir)
 //   pghi_synthesize_kernel  <- _pghi_invert_kernel, synthesis part (phases_in), with
 //                              ops/pallas/ola.py:ola_accumulate
-// pghi_invert_fused is the first followed by the second.
+// pghi_invert_fused is the first followed by the second.  And from
+// ops/pallas/stream_step.py:
+//   rt_pghi_phases_kernel   <- _rt_pghi_phases, the recurrence of the streaming
+//                              sessions _session_pghi_kernel (N) and
+//                              _session_pghi_invert_kernel (Q); their analysis and
+//                              synthesis are kernels of stream_step.cu
 //
 // What bounds them on this card.  The recurrence is bound by latency, not by
 // bytes or operations: per frame a clip does a few operations on F values, but
@@ -42,6 +47,17 @@
 // the sign of the time trapezoid and of the time derivative flipped.  Chain 1
 // first repeats chain 0's seed step (frame mid with its true neighbours), so
 // its carry is the seed phase without any exchange between blocks.
+//
+// Streaming (RT-PGHI): the same fill per frame with the causal time stencil
+// (3 Y[t] - 4 Y[t-1] + Y[t-2]) / 2 and, per chunk of T_c frames, the chunk's
+// own threshold tol * max over its (T_c, F) magnitudes.  One block walks one
+// session's chunks in order; the previous frames' magnitudes, logarithms and
+// time steps stay in registers across the chunk boundary (the carried
+// mag_buffer of the chunked loop), and the phase carry is re-wrapped there as
+// atan2(m sin phi, m cos phi) of the last frame, which is what the chunked
+// loop carries (angle of the committed spectrum): the phases then stay within
+// one chunk's growth (16 frames x 2 pi hop k / n_fft), where a float32 ulp is
+// small, instead of growing over the whole session.
 //
 // Synthesis: see synth_ola.cuh.  A block computes mag * (cos, sin)(phase) of
 // its R + overlap - 1 frames once into shared memory (sincosf of arguments up
@@ -323,6 +339,196 @@ __global__ void __launch_bounds__(1024) pghi_phases_kernel(PghiArgs p) {
     }
 }
 
+struct RtPghiArgs {
+    const float* mag;     // (B, T, F), T a multiple of T_c
+    const float* angles;  // (B, Ta, F) phases of the silent bins, Ta >= T
+    float* phases;        // (B, T, F) out
+    int T, Ta, F, T_c;
+    float tol;            // threshold relative to the chunk's maximum
+    float fmul;           // gamma / (hop n_fft)
+    float inv_fmul;       // 1 / fmul
+    float carrier;        // 2 pi hop / n_fft
+};
+
+// Shared memory: 3 rows of n_pad floats (the current frame's logarithm,
+// magnitude and frequency step), the warps' frame maxima and chunk maxima (2 x
+// 32 floats), the scans' totals (2 x 32 Affine).
+__host__ __device__ inline size_t rt_pghi_smem_bytes(int n_pad) {
+    return sizeof(float) * (3 * (size_t)n_pad + 64) + 2 * 32 * sizeof(Affine);
+}
+
+template <int kBPT>
+__global__ void __launch_bounds__(1024) rt_pghi_phases_kernel(RtPghiArgs p) {
+    extern __shared__ __align__(16) float smem[];
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int n_warps = blockDim.x >> 5;
+    const int n_pad = blockDim.x * kBPT;
+    const int T = p.T, F = p.F, T_c = p.T_c;
+
+    float* sYc = smem;
+    float* sM = sYc + n_pad;
+    float* sFs = sM + n_pad;
+    float* sWmax = sFs + n_pad;
+    float* sCmax = sWmax + 32;
+    Affine* tot_up = reinterpret_cast<Affine*>(sCmax + 32);
+    Affine* tot_dn = tot_up + 32;
+
+    const long long b = blockIdx.x;
+    const float* mag = p.mag + (size_t)b * T * F;
+    const float* ang = p.angles + (size_t)b * p.Ta * F;
+    float* out = p.phases + (size_t)b * T * F;
+    const float big = (float)(10 * F);
+    const float y_zero = logf(kPghiEps);  // logarithm of a zero magnitude
+
+    // per bin: the phase carry, and of the two frames before the current one
+    // the magnitude (m1), the logarithms (y1, y2) and the time step (ts1); a
+    // fresh session starts after two zero frames, whose time step is the
+    // carrier term alone
+    float phi[kBPT], m1[kBPT], y1[kBPT], y2[kBPT], ts1[kBPT];
+#pragma unroll
+    for (int j = 0; j < kBPT; ++j) {
+        phi[j] = 0.0f;
+        m1[j] = 0.0f;
+        y1[j] = y_zero;
+        y2[j] = y_zero;
+        ts1[j] = __fmul_rn(p.carrier, (float)(tid * kBPT + j));
+    }
+    float abstol = kPghiEps;
+
+    for (int t = 0; t < T; ++t) {
+        if (t % T_c == 0) {
+            // the chunk's threshold: its maximum over (T_c, F)
+            float cm = 0.0f;
+            const float* cmag = mag + (size_t)t * F;
+            for (int i = tid; i < T_c * F; i += blockDim.x) cm = fmaxf(cm, __ldg(cmag + i));
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, o));
+            if (lane == 0) sCmax[warp] = cm;
+            __syncthreads();
+            float mx = 0.0f;
+            for (int w = 0; w < n_warps; ++w) mx = fmaxf(mx, sCmax[w]);
+            abstol = fmaxf(__fmul_rn(p.tol, mx), kPghiEps);
+            if (t > 0) {
+                // the carry the chunked loop hands over: the angle of the
+                // committed spectrum's last frame
+#pragma unroll
+                for (int j = 0; j < kBPT; ++j) {
+                    float sn, cs;
+                    sincosf(phi[j], &sn, &cs);
+                    phi[j] = atan2f(__fmul_rn(m1[j], sn), __fmul_rn(m1[j], cs));
+                }
+            }
+        }
+
+        float mc[kBPT], yc[kBPT], fs[kBPT], tsc[kBPT];
+        float wmax = -1.0f;
+#pragma unroll
+        for (int j = 0; j < kBPT; ++j) {
+            const int k = tid * kBPT + j;
+            float v = 0.0f;
+            if (k < F) {
+                v = __ldg(mag + (size_t)t * F + k);
+                wmax = fmaxf(wmax, v);
+            }
+            yc[j] = logf(fmaxf(v, kPghiEps));
+            const float dydt = __fmul_rn(
+                __fadd_rn(__fsub_rn(__fmul_rn(3.0f, yc[j]), __fmul_rn(4.0f, y1[j])), y2[j]), 0.5f);
+            mc[j] = v;
+            fs[j] = __fadd_rn(__fmul_rn(-p.fmul, dydt), kPiF);
+            sYc[k] = yc[j];
+            sM[k] = v;
+            sFs[k] = fs[j];
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) wmax = fmaxf(wmax, __shfl_xor_sync(0xffffffffu, wmax, o));
+        if (lane == 0) sWmax[warp] = wmax;
+        __syncthreads();
+
+        Affine up[kBPT], dn[kBPT];
+        float phit[kBPT];
+        bool anch[kBPT], sig[kBPT];
+        int any_local = 0;
+#pragma unroll
+        for (int j = 0; j < kBPT; ++j) {
+            const int k = tid * kBPT + j;
+            anch[j] = false;
+            sig[j] = false;
+            phit[j] = 0.0f;
+            tsc[j] = 0.0f;
+            up[j] = identity_map();
+            dn[j] = identity_map();
+            if (k < F) {
+                const int kd = k > 0 ? k - 1 : 0, ku = k < F - 1 ? k + 1 : F - 1;
+                const float ck = __fmul_rn(p.carrier, (float)k);
+                tsc[j] = __fadd_rn(
+                    __fmul_rn(__fmul_rn(__fsub_rn(sYc[ku], sYc[kd]), 0.5f), p.inv_fmul), ck);
+                const float ct = __fmul_rn(__fadd_rn(ts1[j], tsc[j]), 0.5f);
+                phit[j] = __fadd_rn(phi[j], ct);
+                up[j].b = k == 0 ? 0.0f : __fmul_rn(__fadd_rn(fs[j], sFs[k - 1]), 0.5f);
+                dn[j].b = k == F - 1 ? 0.0f : -__fmul_rn(__fadd_rn(fs[j], sFs[k + 1]), 0.5f);
+                sig[j] = mc[j] > abstol;
+                const float m_dn = k == 0 ? -1.0f : sM[k - 1];
+                const float m_up = k == F - 1 ? -1.0f : sM[k + 1];
+                anch[j] = sig[j] && m1[j] > abstol && mc[j] >= m_dn && mc[j] >= m_up;
+                any_local |= anch[j] ? 1 : 0;
+            }
+        }
+        int any_anchor = __syncthreads_or(any_local);
+        if (!any_anchor) {
+            // onset: every audible bin equal to the frame maximum seeds
+            float fmax_ = -1.0f;
+            for (int w = 0; w < n_warps; ++w) fmax_ = fmaxf(fmax_, sWmax[w]);
+            any_local = 0;
+#pragma unroll
+            for (int j = 0; j < kBPT; ++j) {
+                const int k = tid * kBPT + j;
+                anch[j] = k < F && sig[j] && mc[j] == fmax_;
+                any_local |= anch[j] ? 1 : 0;
+            }
+            any_anchor = __syncthreads_or(any_local);
+        }
+#pragma unroll
+        for (int j = 0; j < kBPT; ++j) {
+            const int k = tid * kBPT + j;
+            if (k < F) {
+                const float a0 = anch[j] ? 0.0f : 1.0f;
+                up[j].a = a0;
+                dn[j].a = a0;
+                up[j].d = a0;
+                dn[j].d = a0;
+                if (anch[j]) {
+                    up[j].b = phit[j];
+                    dn[j].b = phit[j];
+                }
+            }
+        }
+        block_scan<kBPT, true>(up, tot_up, lane, warp, n_warps);
+        block_scan<kBPT, false>(dn, tot_dn, lane, warp, n_warps);
+#pragma unroll
+        for (int j = 0; j < kBPT; ++j) {
+            const int k = tid * kBPT + j;
+            if (k < F) {
+                const float du = up[j].a == 0.0f ? up[j].d : big;
+                const float dd = dn[j].a == 0.0f ? dn[j].d : big;
+                float filled = du <= dd ? up[j].b : dn[j].b;  // a tie takes the fill from below
+                if (!any_anchor) filled = 0.0f;
+                float v = anch[j] ? phit[j] : filled;
+                if (!sig[j]) v = __ldg(ang + (size_t)t * F + k);
+                phi[j] = v;
+                out[(size_t)t * F + k] = v;
+            }
+            y2[j] = y1[j];
+            y1[j] = yc[j];
+            m1[j] = mc[j];
+            ts1[j] = tsc[j];
+        }
+        // the scans' barriers lie between this step's reads of the shared rows
+        // and the next step's writes
+    }
+}
+
 struct SynthArgs {
     const float* mag;     // (B, T, F)
     const float* phases;  // (B, T, F)
@@ -422,6 +628,52 @@ int att_pghi_phases(const float* mag, const float* angles, const float* abstol, 
     else if (bpt == 2) ATT_LAUNCH_PHASES(2);
     else ATT_LAUNCH_PHASES(4);
 #undef ATT_LAUNCH_PHASES
+    return (int)cudaGetLastError();
+}
+
+long long att_rt_pghi_smem_bytes(int n_pad) {
+    return (long long)att::rt_pghi_smem_bytes(n_pad);
+}
+
+// mag, phases: (B, T, F) float32 with T a multiple of T_c; angles (B, Ta, F),
+// Ta >= T.  bpt bins per thread (1, 2 or 4) with ceil(F / (32 bpt)) warps per
+// block, at most 32; one block per session.  Returns a cudaError_t.
+int att_rt_pghi_phases(const float* mag, const float* angles, float* phases, long long B, int T,
+                       int Ta, int F, int T_c, float tol, float fmul, float inv_fmul,
+                       float carrier, int bpt, void* stream) {
+    using namespace att;
+    if (B < 1 || T < 1 || F < 2 || T_c < 1 || T % T_c != 0 || Ta < T) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const int n_warps = (F + 32 * bpt - 1) / (32 * bpt);
+    if (n_warps > 32 || (bpt != 1 && bpt != 2 && bpt != 4)) return (int)cudaErrorInvalidValue;
+    RtPghiArgs a;
+    a.mag = mag;
+    a.angles = angles;
+    a.phases = phases;
+    a.T = T;
+    a.Ta = Ta;
+    a.F = F;
+    a.T_c = T_c;
+    a.tol = tol;
+    a.fmul = fmul;
+    a.inv_fmul = inv_fmul;
+    a.carrier = carrier;
+    const int threads = 32 * n_warps;
+    const size_t smem = rt_pghi_smem_bytes(threads * bpt);
+    dim3 grid((unsigned)B);
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
+#define ATT_LAUNCH_RT_PGHI(BPT)                                             \
+    do {                                                                    \
+        err = pghi_allow_smem(rt_pghi_phases_kernel<BPT>, smem);            \
+        if (err != cudaSuccess) return (int)err;                            \
+        rt_pghi_phases_kernel<BPT><<<grid, threads, smem, s>>>(a);          \
+    } while (0)
+    if (bpt == 1) ATT_LAUNCH_RT_PGHI(1);
+    else if (bpt == 2) ATT_LAUNCH_RT_PGHI(2);
+    else ATT_LAUNCH_RT_PGHI(4);
+#undef ATT_LAUNCH_RT_PGHI
     return (int)cudaGetLastError();
 }
 

@@ -2,10 +2,15 @@
 // for Hopper (sm_90a).
 //
 // Replaces, from the JAX package's ops/pallas/stream_step.py:
-//   session_encode_kernel            <- _session_forward_kernel        (make_fused_forward_session)
+//   session_encode_kernel<false>     <- _session_forward_kernel        (make_fused_forward_session)
+//   session_encode_kernel<true>      <- _analyze_mag, the analysis of _session_pghi_kernel
+//                                       (make_fused_pghi_roundtrip; pghi.cu holds its recurrence)
 //   session_roundtrip_kernel<., 0>   <- _session_kernel                (make_fused_roundtrip)
 //   session_roundtrip_kernel<., 1>   <- _session_random_kernel         (make_fused_random_roundtrip)
-//   session_decode_kernel            <- _session_random_invert_kernel  (make_fused_random_invert)
+//   session_decode_kernel<., false>  <- _session_random_invert_kernel  (make_fused_random_invert;
+//                                       also the synthesis of the RT-PGHI sessions N and Q, with
+//                                       the recurrence's phases as its angles)
+//   session_decode_kernel<., true>   <- _session_complex_invert_kernel (make_fused_complex_invert)
 //
 // What they compute.  A fresh session's frames are the contiguous slices
 // [t hop, t hop + n_fft) of the row-padded signal: (overlap - 1) hop zero
@@ -20,7 +25,8 @@
 // the overlap - 1 frames before its tile instead (its halo).
 //
 // Encode: every frame's windowed DFT, written as interleaved (re, im), so the
-// caller views the output as complex with no copy.  Roundtrip: the analysis of
+// caller views the output as complex with no copy; the magnitude encode writes
+// |X| = sqrt(re^2 + im^2) instead (float32, no complex pass).  Roundtrip: the analysis of
 // the R + overlap - 1 frames that cover a block's R output chunks into
 // [re | im] rows in shared memory (for the random mode: |X| times (cos, sin)
 // of the session's angles, read in), then the synthesis product of
@@ -228,7 +234,10 @@ __host__ __device__ inline size_t decode_smem_floats(int rows, int overlap, int 
     return (size_t)(rows + overlap - 1) * Kp + kStageFloats;
 }
 
-// R: a block owns `rows` frames t0 .. of one stream.
+// R (kMag = false): a block owns `rows` frames t0 .. of one stream.  kMag
+// writes the magnitude, each product rounded on its own so that the plain
+// version's sqrt(re * re + im * im) repeats it.
+template <bool kMag>
 __global__ void __launch_bounds__(kThreads) session_encode_kernel(SessionArgs a) {
     extern __shared__ __align__(16) float smem[];
     const long long blk = blockIdx.x;
@@ -239,12 +248,20 @@ __global__ void __launch_bounds__(kThreads) session_encode_kernel(SessionArgs a)
     float* stage = xs + (size_t)(a.rows - 1) * a.hop + a.Kn;  // 16-byte aligned: hop % 4 == 0
     load_session_samples(a.x + (size_t)b * a.L, a.L, (long long)t0 * a.hop,
                          (a.overlap - 1) * a.hop, (n_rows - 1) * a.hop + a.Kn, xs);
-    float2* out = reinterpret_cast<float2*>(a.out) + ((size_t)b * a.T + t0) * a.F;
     const int F = a.F;
-    fullk_analysis(xs, n_rows, a.hop, a.Kn, F, a.wc, a.ws, stage,
-                   [&](int r, int k, float re, float im) {
-                       out[(size_t)r * F + k] = make_float2(re, im);
-                   });
+    if constexpr (kMag) {
+        float* out = a.out + ((size_t)b * a.T + t0) * F;
+        fullk_analysis(xs, n_rows, a.hop, a.Kn, F, a.wc, a.ws, stage,
+                       [&](int r, int k, float re, float im) {
+                           out[(size_t)r * F + k] = sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
+                       });
+    } else {
+        float2* out = reinterpret_cast<float2*>(a.out) + ((size_t)b * a.T + t0) * F;
+        fullk_analysis(xs, n_rows, a.hop, a.Kn, F, a.wc, a.ws, stage,
+                       [&](int r, int k, float re, float im) {
+                           out[(size_t)r * F + k] = make_float2(re, im);
+                       });
+    }
 }
 
 // L (kRandom = false) and M (kRandom = true): a block owns `rows` output
@@ -293,9 +310,11 @@ __global__ void __launch_bounds__(kThreads) session_roundtrip_kernel(SessionArgs
     synth_ola_tile<kRPT, kSumFold>(S, stage, a.syn, Kp, hop, a.overlap, j0, j_end, a.out + (size_t)b * a.T * hop);
 }
 
-// P: a block owns `rows` output chunks j0 .. of one stream; S row q is frame
-// j0 - (overlap - 1) + q, mag * (cos, sin)(angle) of the input.
-template <int kRPT>
+// P (kComplex = false) and S: a block owns `rows` output chunks j0 .. of one
+// stream; S row q is frame j0 - (overlap - 1) + q: mag * (cos, sin)(angle) of
+// the input, or for S the input's interleaved (re, im) (a.mag is then the
+// complex spectrum (B, T, F, 2)).
+template <int kRPT, bool kComplex>
 __global__ void __launch_bounds__(kThreads) session_decode_kernel(SessionArgs a) {
     extern __shared__ __align__(16) float smem[];
     const int m = a.overlap - 1, F = a.F, Kp = a.Kp, T = a.T;
@@ -307,17 +326,24 @@ __global__ void __launch_bounds__(kThreads) session_decode_kernel(SessionArgs a)
     float* S = smem;
     float* stage = S + (size_t)(a.rows + m) * Kp;
     const float* mag = a.mag + (size_t)b * T * F;
-    const float* ang = a.angles + (size_t)b * a.Ta * F;
+    const float2* spec = reinterpret_cast<const float2*>(a.mag) + (size_t)b * T * F;
+    const float* ang = kComplex ? nullptr : a.angles + (size_t)b * a.Ta * F;
     for (int q = 0; q < n_rows; ++q) {
         const int f = j0 - m + q;
         float* row = S + (size_t)q * Kp;
         if (f >= 0) {
             for (int k = threadIdx.x; k < F; k += kThreads) {
-                float sn, cs;
-                sincosf(__ldg(ang + (size_t)f * F + k), &sn, &cs);
-                const float mg = __ldg(mag + (size_t)f * F + k);
-                row[k] = mg * cs;
-                row[F + k] = mg * sn;
+                if constexpr (kComplex) {
+                    const float2 v = __ldg(spec + (size_t)f * F + k);
+                    row[k] = v.x;
+                    row[F + k] = v.y;
+                } else {
+                    float sn, cs;
+                    sincosf(__ldg(ang + (size_t)f * F + k), &sn, &cs);
+                    const float mg = __ldg(mag + (size_t)f * F + k);
+                    row[k] = mg * cs;
+                    row[F + k] = mg * sn;
+                }
             }
             for (int k = 2 * F + threadIdx.x; k < Kp; k += kThreads) row[k] = 0.0f;
         } else {
@@ -352,12 +378,13 @@ long long att_session_decode_smem_bytes(int rows, int overlap, int Kp) {
     return (long long)(att::decode_smem_floats(rows, overlap, Kp) * sizeof(float));
 }
 
-// Kernel R.  x (B, L) float32; wc / ws (Kn, F), Kn a multiple of 32 >= n_fft,
-// zero rows past n_fft; out (B, T, F, 2), every element written.  rows <= 40
+// Kernel R (magnitude = 0) and the magnitude encode.  x (B, L) float32; wc /
+// ws (Kn, F), Kn a multiple of 32 >= n_fft, zero rows past n_fft; out (B, T,
+// F, 2), or (B, T, F) for the magnitude, every element written.  rows <= 40
 // frames per block; hop a multiple of 4.  Returns a cudaError_t.
 int att_session_encode(const float* x, const float* wc, const float* ws, float* out, long long B,
                        long long L, int T, int F, int hop, int overlap, int Kn, int rows,
-                       void* stream) {
+                       int magnitude, void* stream) {
     using namespace att;
     if (!session_args_ok(B, T, F, hop, overlap) || Kn % kKC != 0 || rows < 1 || rows > kMaxRows) {
         return (int)cudaErrorInvalidValue;
@@ -367,9 +394,18 @@ int att_session_encode(const float* x, const float* wc, const float* ws, float* 
     a.L = L; a.T = T; a.F = F; a.hop = hop; a.overlap = overlap; a.Kn = Kn; a.rows = rows;
     a.n_tiles = (T + rows - 1) / rows;
     const size_t smem = (size_t)att_session_encode_smem_bytes(rows, hop, Kn);
-    cudaError_t err = session_allow_smem(session_encode_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    session_encode_kernel<<<dim3((unsigned)(B * a.n_tiles)), kThreads, smem, (cudaStream_t)stream>>>(a);
+    const dim3 grid((unsigned)(B * a.n_tiles));
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
+    if (magnitude) {
+        err = session_allow_smem(session_encode_kernel<true>, smem);
+        if (err != cudaSuccess) return (int)err;
+        session_encode_kernel<true><<<grid, kThreads, smem, s>>>(a);
+    } else {
+        err = session_allow_smem(session_encode_kernel<false>, smem);
+        if (err != cudaSuccess) return (int)err;
+        session_encode_kernel<false><<<grid, kThreads, smem, s>>>(a);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -415,15 +451,16 @@ int att_session_roundtrip(const float* x, const float* angles, const float* wc, 
     return (int)cudaGetLastError();
 }
 
-// Kernel P.  mag (B, T, F); angles (B, Ta, F) with Ta >= T; syn as for L;
-// out (B, T * hop), every sample written.  rows <= 40 output chunks per
+// Kernels P and S (angles == nullptr).  mag (B, T, F), or for S the complex
+// spectrum as (B, T, F, 2) floats; angles (B, Ta, F) with Ta >= T; syn as for
+// L; out (B, T * hop), every sample written.  rows <= 40 output chunks per
 // block.  Returns a cudaError_t.
 int att_session_decode(const float* mag, const float* angles, const float* syn, float* out,
                        long long B, int T, int Ta, int F, int hop, int overlap, int Kp, int rows,
                        void* stream) {
     using namespace att;
     if (!session_args_ok(B, T, F, hop, overlap) || Kp % kSynKC != 0 || Kp < 2 * F || rows < 1 ||
-        rows > 8 * 5 || Ta < T) {
+        rows > 8 * 5 || (angles != nullptr && Ta < T)) {
         return (int)cudaErrorInvalidValue;
     }
     SessionArgs a = {};
@@ -434,18 +471,23 @@ int att_session_decode(const float* mag, const float* angles, const float* syn, 
     dim3 grid((unsigned)(B * a.n_tiles));
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
-#define ATT_LAUNCH_DEC(RPT)                                                        \
+#define ATT_LAUNCH_DEC(RPT, CPLX)                                                  \
     do {                                                                           \
-        err = session_allow_smem(session_decode_kernel<RPT>, smem);                \
+        err = session_allow_smem(session_decode_kernel<RPT, CPLX>, smem);          \
         if (err != cudaSuccess) return (int)err;                                   \
-        session_decode_kernel<RPT><<<grid, kThreads, smem, s>>>(a);                \
+        session_decode_kernel<RPT, CPLX><<<grid, kThreads, smem, s>>>(a);          \
+    } while (0)
+#define ATT_LAUNCH_DEC2(RPT)                                                       \
+    do {                                                                           \
+        if (angles == nullptr) ATT_LAUNCH_DEC(RPT, true); else ATT_LAUNCH_DEC(RPT, false); \
     } while (0)
     const int rpt = (rows + 7) / 8;
-    if (rpt >= 5) ATT_LAUNCH_DEC(5);
-    else if (rpt == 4) ATT_LAUNCH_DEC(4);
-    else if (rpt == 3) ATT_LAUNCH_DEC(3);
-    else if (rpt == 2) ATT_LAUNCH_DEC(2);
-    else ATT_LAUNCH_DEC(1);
+    if (rpt >= 5) ATT_LAUNCH_DEC2(5);
+    else if (rpt == 4) ATT_LAUNCH_DEC2(4);
+    else if (rpt == 3) ATT_LAUNCH_DEC2(3);
+    else if (rpt == 2) ATT_LAUNCH_DEC2(2);
+    else ATT_LAUNCH_DEC2(1);
+#undef ATT_LAUNCH_DEC2
 #undef ATT_LAUNCH_DEC
     return (int)cudaGetLastError();
 }

@@ -162,6 +162,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         ll, i, i, f, f, f, i, i, p,      # B, T, F, fmul, 1 / fmul, carrier, bidir, bpt, stream
     ]
     lib.att_pghi_phases.restype = i
+    lib.att_rt_pghi_smem_bytes.argtypes = [i]
+    lib.att_rt_pghi_smem_bytes.restype = ll
+    lib.att_rt_pghi_phases.argtypes = [
+        p, p, p,                         # mag, angles, phases
+        ll, i, i, i, i,                  # B, T, Ta, F, T_c
+        f, f, f, f, i, p,                # tol, fmul, 1 / fmul, carrier, bpt, stream
+    ]
+    lib.att_rt_pghi_phases.restype = i
     lib.att_pghi_synthesize.argtypes = [
         p, p, p, p,                      # mag, phases, basis, out
         ll, i, i, i, i, i, i, p,         # B, T, F, hop, overlap, Kp, rows, stream
@@ -175,7 +183,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.att_session_decode_smem_bytes.restype = ll
     lib.att_session_encode.argtypes = [
         p, p, p, p,                      # x, wc, ws, out
-        ll, ll, i, i, i, i, i, i, p,     # B, L, T, F, hop, overlap, Kn, rows, stream
+        ll, ll, i, i, i, i, i, i,        # B, L, T, F, hop, overlap, Kn, rows
+        i, p,                            # magnitude, stream
     ]
     lib.att_session_encode.restype = i
     lib.att_session_roundtrip.argtypes = [
@@ -185,7 +194,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.att_session_roundtrip.restype = i
     lib.att_session_decode.argtypes = [
-        p, p, p, p,                      # mag, angles, syn, out
+        p, p, p, p,                      # mag (or spectrum), angles (or None), syn, out
         ll, i, i, i, i, i, i, i, p,      # B, T, Ta, F, hop, overlap, Kp, rows, stream
     ]
     lib.att_session_decode.restype = i

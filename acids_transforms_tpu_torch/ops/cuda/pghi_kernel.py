@@ -236,30 +236,39 @@ def _run_chain(m, ang, abstol, steps, fmul, carrier, dtype, out):
     del Mp, Mn, mpad
 
     big = float(10 * n_bins)
-    pad = (0, n_pad - n_bins)
     phi = torch.zeros((B, n_bins), device=dev, dtype=dtype)
     for s in range(len(fc)):
-        a_s = anch[:, s]
-        phi_t = phi + ct[:, s]
-        a0 = (~a_s).to(dtype)
-        b_up = torch.where(a_s, phi_t, sup[:, s])
-        b_dn = torch.where(a_s, phi_t, sdn[:, s])
-        # both directions in one scan: the downward one runs up the flipped
-        # padded row (identity maps first, which change nothing)
-        a2 = torch.stack([F_.pad(a0, pad, value=1.0), F_.pad(a0, pad, value=1.0).flip(-1)])
-        b2 = torch.stack([F_.pad(b_up, pad), F_.pad(b_dn, pad).flip(-1)])
-        d2 = torch.stack([F_.pad(a0, pad), F_.pad(a0, pad).flip(-1)])
-        sa, sb, sd = _block_scan((a2, b2, d2), bpt)
-        a_u, f_up, d_up = sa[0, :, :n_bins], sb[0, :, :n_bins], sd[0, :, :n_bins]
-        a_d, f_dn, d_dn = (x[1].flip(-1)[:, :n_bins] for x in (sa, sb, sd))
-        du = torch.where(a_u == 0, d_up, big)
-        dd = torch.where(a_d == 0, d_dn, big)
-        filled = torch.where(du <= dd, f_up, f_dn)     # a tie takes the fill from below
-        filled = torch.where(any_anchor[:, s], filled, torch.zeros_like(filled))
-        phi = torch.where(a_s, phi_t, filled)
-        phi = torch.where(sig[:, s], phi, ang[:, fc[s]].to(dtype))
+        phi = _fill_frame(phi, ct[:, s], anch[:, s], sup[:, s], sdn[:, s], any_anchor[:, s],
+                          sig[:, s], ang[:, fc[s]], bpt, n_pad, big, dtype)
         if store[s]:
             out[:, fc[s]] = phi
+
+
+def _fill_frame(phi, ct, a_s, sup, sdn, any_anchor, sig, ang, bpt, n_pad, big, dtype):
+    """One frame of the recurrence on ``(B, F)`` rows, in the kernel's order:
+    ``phi + ct`` at the anchors, the two-sided segmented fill from them, the
+    anchored / filled select, the silent bins' angles.  Returns the frame's
+    phases."""
+    n_bins = phi.shape[-1]
+    pad = (0, n_pad - n_bins)
+    phi_t = phi + ct
+    a0 = (~a_s).to(dtype)
+    b_up = torch.where(a_s, phi_t, sup)
+    b_dn = torch.where(a_s, phi_t, sdn)
+    # both directions in one scan: the downward one runs up the flipped
+    # padded row (identity maps first, which change nothing)
+    a2 = torch.stack([F_.pad(a0, pad, value=1.0), F_.pad(a0, pad, value=1.0).flip(-1)])
+    b2 = torch.stack([F_.pad(b_up, pad), F_.pad(b_dn, pad).flip(-1)])
+    d2 = torch.stack([F_.pad(a0, pad), F_.pad(a0, pad).flip(-1)])
+    sa, sb, sd = _block_scan((a2, b2, d2), bpt)
+    a_u, f_up, d_up = sa[0, :, :n_bins], sb[0, :, :n_bins], sd[0, :, :n_bins]
+    a_d, f_dn, d_dn = (x[1].flip(-1)[:, :n_bins] for x in (sa, sb, sd))
+    du = torch.where(a_u == 0, d_up, big)
+    dd = torch.where(a_d == 0, d_dn, big)
+    filled = torch.where(du <= dd, f_up, f_dn)     # a tie takes the fill from below
+    filled = torch.where(any_anchor, filled, torch.zeros_like(filled))
+    phi = torch.where(a_s, phi_t, filled)
+    return torch.where(sig, phi, ang.to(dtype))
 
 
 def _phases_reference(m, ang, gamma, n_fft, hop, tolerance, bidir, dtype):

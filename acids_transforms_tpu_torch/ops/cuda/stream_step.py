@@ -1,8 +1,8 @@
 """Whole-session streaming kernels (twin of the JAX ``ops/pallas/stream_step.py``).
 
 A chunked session of an ``[OverlapAdd, RealtimeSTFT-family]`` chain is one
-kernel launch instead of a Python loop of small ops per chunk
-(``streaming.py``).  This module holds the four sessions of this slice:
+to three kernel launches instead of a Python loop of small ops per chunk
+(``streaming.py``).  The sessions:
 
 * ``make_fused_forward_session`` (kernel R): encode, audio ``(..., L)`` ->
   complex frames ``(..., T, F)`` and the chain's final state;
@@ -10,7 +10,20 @@ kernel launch instead of a Python loop of small ops per chunk
 * ``make_fused_random_roundtrip`` (M): the ``random`` roundtrip (the
   reference's default realtime mode), ``|X|`` with the session's angles;
 * ``make_fused_random_invert`` (P): the ``random`` decode, magnitudes
-  ``(..., T, F)`` -> audio ``(..., T * hop)``.
+  ``(..., T, F)`` -> audio ``(..., T * hop)``;
+* ``make_fused_pghi_roundtrip`` (N): the phaseless RT-PGHI roundtrip, three
+  launches: the magnitude encode (R's analysis with an ``|X|`` epilogue), the
+  recurrence (``csrc/pghi.cu:rt_pghi_phases_kernel``, one block per session
+  walking its chunks in order), P's synthesis with the recurrence's phases;
+* ``make_fused_pghi_invert`` (Q): the RT-PGHI decode, the last two of those;
+* ``make_fused_magnitude_session``: the magnitude encode alone (the
+  ``[.., Magnitude]`` chains' RT-PGHI roundtrip runs it, then Q);
+* ``make_fused_complex_invert`` (S): the complex decode, spectra ``(..., T,
+  F)`` -> audio, P's synthesis reading ``(re, im)`` as they are.
+
+Why N is three launches and not one: the recurrence is serial per session, so
+one fused launch would hold both ``O(n_fft F)`` products to one block per
+session (64 blocks on 132 SMs at the headline shape).
 
 The kernels (``csrc/stream_step.cu``) carry no state between chunks: a fresh
 session's frame ``t`` is the slice ``[t hop, t hop + n_fft)`` of the signal
@@ -32,6 +45,18 @@ kernels' own limits, ``hop % 4 == 0`` and a block that fits shared memory
 (:func:`kernel_covers`); a shape inside the gate but outside those limits
 raises ``NotImplementedError`` on a CUDA tensor and is never sent elsewhere.
 
+RT-PGHI.  The recurrence is ``ops/pghi.py:pghi_scan(time_stencil="backward")``
+per chunk with the chunk's own threshold (``tolerance`` times the chunk's
+maximum, zero frames of a ragged last chunk included), the previous two
+frames' magnitudes and the previous phase carried across the boundary: what
+the generic scan's ``RealtimeSTFT.pghi_stream`` carries.  Like that scan, the
+phase carry is re-wrapped at every chunk boundary to the angle of ``m e^{i
+phi}`` of the last frame (the JAX kernel carries it unwrapped, ROADMAP Queue
+3).  The magnitudes carried are the frames' own (the generic scan takes
+``|m e^{i phi}|``, equal up to rounding).  The plain version
+(:func:`rt_pghi_phases_reference`) repeats the kernel's order of additions,
+as ``pghi_kernel.py`` does for K.
+
 Angle draws.  The random sessions draw their angles chunk by chunk, each of
 shape ``batch_shape + (T_c, F)``, from one ``torch.Generator`` through
 ``ops/pghi.py:random_angles``, in the order the generic chunk scan draws them
@@ -43,22 +68,28 @@ them as an operand instead (the tests feed the JAX package's draws).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..fft import _dft_matrices, _idft_matrices, _tables
 from ..framing import frame, overlap_add
-from ..pghi import random_angles
+from ..pghi import EPS, random_angles
 from . import _build
+from .pghi_kernel import _bins_per_thread, _fill_frame
 
 __all__ = [
     "fused_forward_session_available", "make_fused_forward_session",
     "fused_roundtrip_available", "make_fused_roundtrip",
     "fused_random_roundtrip_available", "make_fused_random_roundtrip",
     "fused_random_invert_available", "make_fused_random_invert",
-    "kernel_covers", "session_rows", "session_angles",
+    "fused_pghi_roundtrip_available", "make_fused_pghi_roundtrip", "make_fused_magnitude_session",
+    "fused_pghi_invert_available", "make_fused_pghi_invert",
+    "fused_complex_invert_available", "make_fused_complex_invert",
+    "kernel_covers", "session_rows", "session_angles", "rt_pghi_phases",
     "session_encode_reference", "session_roundtrip_reference", "session_decode_reference",
+    "session_magnitude_reference", "rt_pghi_phases_reference", "session_complex_decode_reference",
     "launches", "reset_launches",
 ]
 
@@ -69,9 +100,12 @@ _KC = 32                          # staged contraction rows (dft_common.cuh, syn
 _STAGE = 2 * 32 * 128             # floats of the staging area both phases share
 
 #: kernel launches made by the wrappers of this module, by kernel
+#: (``session_random_decode`` counts P's kernel, which is also the synthesis of
+#: the RT-PGHI sessions)
 launches: Dict[str, int] = {
     "session_encode": 0, "session_roundtrip": 0,
     "session_random_roundtrip": 0, "session_random_decode": 0,
+    "session_magnitude": 0, "rt_pghi_phases": 0, "session_complex_decode": 0,
 }
 
 
@@ -139,6 +173,25 @@ def fused_random_invert_available(chain, chunk_frames: int) -> bool:
     return cs is not None and fused_random_roundtrip_available(chain, cs)
 
 
+def fused_pghi_roundtrip_available(chain, chunk_size: int) -> bool:
+    """Gate of the ``inversion_mode="pghi"`` roundtrip session: the same
+    structure (the integer overlap and the window's ``gamma`` PGHI needs are
+    in it: ``hop | n_fft``, and every ``RealtimeSTFT`` has a gamma).  The
+    threshold is a chunk statistic, so the chunk is a parameter of the
+    recurrence, not a tiling."""
+    return fused_roundtrip_available(chain, chunk_size)
+
+
+def fused_pghi_invert_available(chain, chunk_frames: int) -> bool:
+    """Gate of the ``inversion_mode="pghi"`` decode session."""
+    return fused_random_invert_available(chain, chunk_frames)
+
+
+def fused_complex_invert_available(chain, chunk_frames: int) -> bool:
+    """Gate of the complex (explicit-phase) decode session."""
+    return fused_random_invert_available(chain, chunk_frames)
+
+
 # ------------------------------------------------------- kernels' limits
 def _k_padded(n_bins: int) -> int:
     """Row length of the synthesis's ``[re | im]`` rows: 2F rounded up to 32."""
@@ -193,21 +246,26 @@ def _pick_rows(kind: str, n_fft: int, hop: int) -> Optional[int]:
 
 
 def kernel_covers(kind: str, n_fft: int, hop: int) -> bool:
-    """Whether the kernel of ``kind`` (``"encode"``, ``"roundtrip"`` or
-    ``"decode"``) takes the shape: ``hop % 4 == 0`` (16-byte rows) and a
-    block that fits shared memory."""
+    """Whether the kernel of ``kind`` takes the shape: ``"encode"`` (R and the
+    magnitude encode), ``"roundtrip"`` (L, M) and ``"decode"`` (P, S) need
+    ``hop % 4 == 0`` (16-byte rows) and a block that fits shared memory;
+    ``"recurrence"`` (RT-PGHI) at most 4096 bins, what one block holds."""
+    if kind == "recurrence":
+        return n_fft % hop == 0 and _bins_per_thread(n_fft // 2 + 1) is not None
     return hop % 4 == 0 and n_fft % hop == 0 and _pick_rows(kind, n_fft, hop) is not None
 
 
-def _require(kind: str, n_fft: int, hop: int) -> int:
-    """The block height of ``kind``, or raise: a shape the structural gate
-    lets through is never quietly computed some other way."""
+def _require(kind: str, n_fft: int, hop: int) -> Optional[int]:
+    """The block height of ``kind`` (None for the recurrence), or raise: a
+    shape the structural gate lets through is never quietly computed some
+    other way."""
     if kernel_covers(kind, n_fft, hop):
-        return _pick_rows(kind, n_fft, hop)
+        return None if kind == "recurrence" else _pick_rows(kind, n_fft, hop)
+    need = ("at most 4096 bins" if kind == "recurrence"
+            else "hop % 4 == 0 and a block that fits shared memory")
     raise NotImplementedError(
         "the CUDA session kernels do not cover n_fft=%d hop=%d (%s): they need "
-        "hop %% 4 == 0 and a block that fits shared memory (ROADMAP Queue 2, "
-        "K10-K14); use backend='generic'" % (n_fft, hop, kind)
+        "%s (ROADMAP Queue 2, K10-K16); use backend='generic'" % (n_fft, hop, kind, need)
     )
 
 
@@ -313,19 +371,119 @@ def session_decode_reference(mag, angles, inv_window, gain: float, n_fft: int, h
     return _synthesize(mag * torch.cos(a), mag * torch.sin(a), inv_window, gain, n_fft, hop, T)
 
 
+def session_complex_decode_reference(spec, inv_window, gain: float, n_fft: int, hop: int) -> torch.Tensor:
+    """Plain version of kernel S: a complex spectrum ``(B, T, F)`` -> ``(B, T *
+    hop)``."""
+    return _synthesize(spec.real, spec.imag, inv_window, gain, n_fft, hop, spec.shape[1])
+
+
+def session_magnitude_reference(x2d, window, n_fft: int, hop: int, n_frames: int) -> torch.Tensor:
+    """Plain version of the magnitude encode: ``|X|`` ``(B, n_frames, F)`` of
+    R's frames, ``sqrt(re * re + im * im)``."""
+    re, im = session_encode_reference(x2d, window, n_fft, hop, n_frames)
+    return torch.sqrt(re * re + im * im)
+
+
+def _rt_constants(gamma: float, n_fft: int, hop: int):
+    """``(fmul, 1 / fmul, carrier)`` as the recurrence takes them."""
+    fmul = float(gamma) / (hop * n_fft)
+    return fmul, 1.0 / fmul, 2.0 * math.pi * hop / n_fft
+
+
+def rt_pghi_phases_reference(mag, angles, gamma: float, n_fft: int, hop: int, tolerance: float,
+                             chunk_frames: int) -> torch.Tensor:
+    """Plain version of the RT-PGHI recurrence: magnitudes ``(B, T, F)``, ``T``
+    a multiple of ``chunk_frames``, and the silent bins' angles ``(B, >= T,
+    F)`` -> phases ``(B, T, F)``, in the kernel's order of additions (see the
+    module notes).  Frame ``t``'s two previous frames are the session's own
+    (two zero frames before the first); chunk ``c``'s threshold is
+    ``max(tolerance * max(mag[c]), EPS)``; at each chunk boundary the phase
+    carry becomes ``atan2(m sin phi, m cos phi)`` of the last frame."""
+    B, T, n_bins = mag.shape
+    T_c = int(chunk_frames)
+    if T % T_c:
+        raise ValueError("%d frames are no whole number of %d-frame chunks" % (T, T_c))
+    dev, dt = mag.device, torch.float32
+    fmul, inv_fmul, carrier = _rt_constants(gamma, n_fft, hop)
+    bpt = _bins_per_thread(n_bins)
+    n_pad = -(-n_bins // (32 * bpt)) * 32 * bpt
+    # two zero frames before the session: the fresh carry
+    mz = torch.cat([mag.new_zeros((B, 2, n_bins)), mag], dim=1)
+    Yz = torch.log(torch.clamp_min(mz, EPS))
+    ck = carrier * torch.arange(n_bins, device=dev, dtype=dt)
+    up = torch.cat([Yz[..., 1:], Yz[..., -1:]], dim=-1)
+    dn = torch.cat([Yz[..., :1], Yz[..., :-1]], dim=-1)
+    ts = ((up - dn) * 0.5) * inv_fmul + ck                  # (B, T + 2, F)
+    ct = (ts[:, 1:-1] + ts[:, 2:]) * 0.5
+    Y, Y1, Y2 = Yz[:, 2:], Yz[:, 1:-1], Yz[:, :-2]
+    fs = (-fmul) * (((3.0 * Y - 4.0 * Y1) + Y2) * 0.5) + math.pi
+    del Yz, up, dn, ts, Y, Y1, Y2
+    trap = (fs[..., 1:] + fs[..., :-1]) * 0.5
+    zero = torch.zeros_like(fs[..., :1])
+    sup = torch.cat([zero, trap], dim=-1)
+    sdn = torch.cat([-trap, zero], dim=-1)
+    del fs, trap
+    mx = mag.reshape(B, T // T_c, T_c * n_bins).amax(dim=-1)
+    thr = torch.clamp_min(tolerance * mx, EPS).repeat_interleave(T_c, dim=1)[..., None]
+    Mp = mz[:, 1:-1]
+    sig = mag > thr
+    mpad = torch.nn.functional.pad(mag, (1, 1), value=-1.0)
+    anch = sig & (Mp > thr) & (mag >= mpad[..., :-2]) & (mag >= mpad[..., 2:])
+    onset = ~anch.any(dim=-1, keepdim=True)
+    anch = anch | (onset & sig & (mag == mag.amax(dim=-1, keepdim=True)))
+    any_anchor = anch.any(dim=-1, keepdim=True)
+    del mpad, onset
+
+    big = float(10 * n_bins)
+    out = torch.empty((B, T, n_bins), device=dev, dtype=dt)
+    phi = torch.zeros((B, n_bins), device=dev, dtype=dt)
+    for t in range(T):
+        if t and t % T_c == 0:
+            m = mag[:, t - 1]
+            phi = torch.atan2(m * torch.sin(phi), m * torch.cos(phi))
+        phi = _fill_frame(phi, ct[:, t], anch[:, t], sup[:, t], sdn[:, t], any_anchor[:, t],
+                          sig[:, t], angles[:, t], bpt, n_pad, big, dt)
+        out[:, t] = phi
+    return out
+
+
 # ---------------------------------------------------------------- launches
-def _launch_encode(x2d, WC, WS, n_fft, hop, T) -> torch.Tensor:
+def _launch_encode(x2d, WC, WS, n_fft, hop, T, magnitude: bool = False) -> torch.Tensor:
+    """R: ``(B, T, F, 2)`` interleaved ``(re, im)``; ``magnitude``: ``|X|``
+    ``(B, T, F)``."""
     rows = _require("encode", n_fft, hop)
     B, F = x2d.shape[0], n_fft // 2 + 1
-    out = torch.empty((B, T, F, 2), dtype=torch.float32, device=x2d.device)
+    shape = (B, T, F) if magnitude else (B, T, F, 2)
+    out = torch.empty(shape, dtype=torch.float32, device=x2d.device)
     lib = _build.load_library()
     with torch.cuda.device(x2d.device):
         code = lib.att_session_encode(
             x2d.data_ptr(), WC.data_ptr(), WS.data_ptr(), out.data_ptr(), B, x2d.shape[1], T, F,
-            hop, n_fft // hop, WC.shape[0], rows, _stream(),
+            hop, n_fft // hop, WC.shape[0], rows, int(magnitude), _stream(),
         )
-    _build.check(code, "session_encode")
-    launches["session_encode"] += 1
+    name = "session_magnitude" if magnitude else "session_encode"
+    _build.check(code, name)
+    launches[name] += 1
+    return out
+
+
+def _launch_rt_pghi(mag, angles, gamma, n_fft, hop, tolerance, T_c) -> torch.Tensor:
+    """The RT-PGHI recurrence: ``mag (B, T, F)``, ``T`` a multiple of ``T_c``,
+    ``angles (B, >= T, F)`` -> phases ``(B, T, F)``."""
+    _require("recurrence", n_fft, hop)
+    B, T, F = mag.shape
+    if T % T_c:
+        raise ValueError("%d frames are no whole number of %d-frame chunks" % (T, T_c))
+    fmul, inv_fmul, carrier = _rt_constants(gamma, n_fft, hop)
+    out = torch.empty_like(mag)
+    lib = _build.load_library()
+    with torch.cuda.device(mag.device):
+        code = lib.att_rt_pghi_phases(
+            mag.data_ptr(), angles.data_ptr(), out.data_ptr(), B, T, angles.shape[1], F, T_c,
+            float(tolerance), fmul, inv_fmul, carrier, _bins_per_thread(F), _stream(),
+        )
+    _build.check(code, "rt_pghi_phases")
+    launches["rt_pghi_phases"] += 1
     return out
 
 
@@ -348,18 +506,38 @@ def _launch_roundtrip(x2d, angles, WC, WS, syn, n_fft, hop, T) -> torch.Tensor:
 
 
 def _launch_decode(mag, angles, syn, n_fft, hop) -> torch.Tensor:
+    """P: ``mag (B, T, F)`` with ``angles (B, >= T, F)``; S (``angles=None``):
+    ``mag`` is the spectrum as ``(B, T, F, 2)`` floats."""
     rows = _require("decode", n_fft, hop)
-    B, T, F = mag.shape
+    B, T, F = mag.shape[:3]
     out = torch.empty((B, T * hop), dtype=torch.float32, device=mag.device)
     lib = _build.load_library()
     with torch.cuda.device(mag.device):
         code = lib.att_session_decode(
-            mag.data_ptr(), angles.data_ptr(), syn.data_ptr(), out.data_ptr(), B, T,
-            angles.shape[1], F, hop, n_fft // hop, syn.shape[1], rows, _stream(),
+            mag.data_ptr(), None if angles is None else angles.data_ptr(), syn.data_ptr(),
+            out.data_ptr(), B, T, T if angles is None else angles.shape[1], F, hop, n_fft // hop,
+            syn.shape[1], rows, _stream(),
         )
-    _build.check(code, "session_random_decode")
-    launches["session_random_decode"] += 1
+    name = "session_complex_decode" if angles is None else "session_random_decode"
+    _build.check(code, name)
+    launches[name] += 1
     return out
+
+
+def rt_pghi_phases(mag, angles, gamma: float, n_fft: int, hop: int, tolerance: float,
+                   chunk_frames: int) -> torch.Tensor:
+    """The RT-PGHI recurrence of a whole session, ``mag (B, T, F)`` (``T`` a
+    multiple of ``chunk_frames``) and angles ``(B, >= T, F)`` -> phases ``(B,
+    T, F)``: the kernel on a CUDA tensor, :func:`rt_pghi_phases_reference` on
+    a CPU one."""
+    if mag.ndim != 3 or angles.shape[0] != mag.shape[0] or angles.shape[-1] != mag.shape[-1]:
+        raise ValueError("expected mag (B, T, F) and angles (B, >= T, F), got %s and %s"
+                         % (tuple(mag.shape), tuple(angles.shape)))
+    mag = mag.to(torch.float32).contiguous()
+    angles = _angles_3d(angles, mag.shape[0], mag.shape[1], mag.shape[2], mag.device)
+    if mag.is_cuda:
+        return _launch_rt_pghi(mag, angles, gamma, n_fft, hop, tolerance, chunk_frames)
+    return rt_pghi_phases_reference(mag, angles, gamma, n_fft, hop, tolerance, chunk_frames)
 
 
 # ---------------------------------------------------------------- sessions
@@ -382,6 +560,28 @@ class _Session:
 
     def synthesis(self):
         return _syn_basis(self.rt.inv_window, self.gain, self.n_fft, self.hop)
+
+    def magnitude(self, xb: torch.Tensor, WC, WS, T: int) -> torch.Tensor:
+        """``|X|`` ``(B, T, F)`` of the session's frames."""
+        if xb.is_cuda:
+            return _launch_encode(xb, WC, WS, self.n_fft, self.hop, T, magnitude=True)
+        return session_magnitude_reference(xb, self.rt.window, self.n_fft, self.hop, T)
+
+    def pghi_decode(self, mag: torch.Tensor, angles: torch.Tensor, syn, T: int) -> torch.Tensor:
+        """RT-PGHI phases of ``mag (B, n_chunks T_c, F)`` and the synthesis of
+        its first ``T`` frames, ``(B, T * hop)``."""
+        ph = rt_pghi_phases(mag, angles, self.rt.gamma, self.n_fft, self.hop,
+                            float(self.rt.tolerance), self.T_c)
+        if mag.is_cuda:
+            return _launch_decode(mag, ph, syn, self.n_fft, self.hop)[:, : T * self.hop]
+        return session_decode_reference(mag[:, :T], ph, self.rt.inv_window, self.gain, self.n_fft,
+                                        self.hop)
+
+    def require(self, *kinds: str) -> None:
+        """Raise unless every kernel a session launches covers the shape,
+        before the first one runs."""
+        for kind in kinds:
+            _require(kind, self.n_fft, self.hop)
 
 
 def make_fused_forward_session(chain, chunk_size: int):
@@ -491,6 +691,97 @@ def make_fused_random_invert(chain, chunk_frames: int, generator: Optional[torch
             out = _launch_decode(mag, a, syn, s.n_fft, s.hop)
         else:
             out = session_decode_reference(mag, a, s.rt.inv_window, s.gain, s.n_fft, s.hop)
+        return out.reshape(batch_shape + (T * s.hop,))
+
+    return run
+
+
+def make_fused_magnitude_session(chain, chunk_size: int):
+    """Whole-session MAGNITUDE encode ``fn(x (..., L)) -> |X| (..., T, F)``:
+    R's analysis with an ``|X|`` epilogue; equal to ``scan_forward(chain, x,
+    chunk_size)[0].abs()`` up to float32 rounding."""
+    s = _Session(chain, chunk_size // chain.transforms[1].hop_length)
+    WC, WS = s.analysis()
+
+    def run(x: torch.Tensor) -> torch.Tensor:
+        T = -(-x.shape[-1] // chunk_size) * s.T_c
+        xb = _flat(x)
+        return s.magnitude(xb, WC, WS, T).reshape(tuple(x.shape[:-1]) + (T, s.F))
+
+    return run
+
+
+def make_fused_pghi_roundtrip(chain, chunk_size: int, generator: Optional[torch.Generator] = None,
+                              angles: Optional[torch.Tensor] = None):
+    """Whole-session ``inversion_mode="pghi"`` roundtrip ``fn(x (..., L)) ->
+    audio (..., n_chunks * chunk_size)``: the magnitude encode, the RT-PGHI
+    recurrence with the chain's ``gamma`` and ``tolerance`` (silent bins take
+    :func:`session_angles` from ``generator``, or ``angles (..., >= T,
+    F)``), the synthesis.  Equal to ``scan_roundtrip(chain, x, chunk_size,
+    inversion_mode="pghi", generator=g)`` with a generator in the same state,
+    up to float32 rounding and the anchor decisions that rounding can flip at
+    a threshold (then by quality)."""
+    s = _Session(chain, chunk_size // chain.transforms[1].hop_length)
+    WC, WS = s.analysis()
+    syn = s.synthesis()
+
+    def run(x: torch.Tensor) -> torch.Tensor:
+        batch_shape = tuple(x.shape[:-1])
+        n_chunks = -(-x.shape[-1] // chunk_size)
+        T = n_chunks * s.T_c
+        xb = _flat(x)
+        if xb.is_cuda:
+            s.require("encode", "recurrence", "decode")
+        a = (session_angles(batch_shape, n_chunks, s.T_c, s.F, xb.device, generator)
+             if angles is None else _angles_3d(angles, xb.shape[0], T, s.F, xb.device))
+        y = s.pghi_decode(s.magnitude(xb, WC, WS, T), a, syn, T)
+        return y.reshape(batch_shape + (T * s.hop,))
+
+    return run
+
+
+def make_fused_pghi_invert(chain, chunk_frames: int, generator: Optional[torch.Generator] = None,
+                           angles: Optional[torch.Tensor] = None):
+    """Whole-session ``inversion_mode="pghi"`` DECODE ``fn(mags (..., T, F))
+    -> audio (..., T * hop)``: the recurrence over ``ceil(T / chunk_frames)``
+    whole chunks (the last zero-frame padded, as the generic scan pads it),
+    then the synthesis.  Equal to ``scan_invert(chain, mags, chunk_frames,
+    inversion_mode="pghi", generator=g)`` under the roundtrip's terms."""
+    s = _Session(chain, chunk_frames)
+    syn = s.synthesis()
+
+    def run(y: torch.Tensor) -> torch.Tensor:
+        batch_shape = tuple(y.shape[:-2])
+        T = y.shape[-2]
+        n_chunks = -(-T // s.T_c)
+        mag = y.reshape((-1, T, s.F)).to(torch.float32)
+        mag = torch.nn.functional.pad(mag, (0, 0, 0, n_chunks * s.T_c - T)).contiguous()
+        if mag.is_cuda:
+            s.require("recurrence", "decode")
+        a = (session_angles(batch_shape, n_chunks, s.T_c, s.F, mag.device, generator)
+             if angles is None else _angles_3d(angles, mag.shape[0], n_chunks * s.T_c, s.F, mag.device))
+        return s.pghi_decode(mag, a, syn, T).reshape(batch_shape + (T * s.hop,))
+
+    return run
+
+
+def make_fused_complex_invert(chain, chunk_frames: int):
+    """Whole-session complex DECODE ``fn(spec complex (..., T, F)) -> audio
+    (..., T * hop)`` (the explicit-phase serving path); equal to
+    ``scan_invert(chain, spec, chunk_frames)`` up to float32 rounding (the
+    chunking changes nothing: a session's output is the overlap-add of all
+    its frames)."""
+    s = _Session(chain, chunk_frames)
+    syn = s.synthesis()
+
+    def run(y: torch.Tensor) -> torch.Tensor:
+        batch_shape = tuple(y.shape[:-2])
+        T = y.shape[-2]
+        spec = y.reshape((-1, T, s.F)).to(torch.complex64)
+        if spec.is_cuda:
+            out = _launch_decode(torch.view_as_real(spec.contiguous()), None, syn, s.n_fft, s.hop)
+        else:
+            out = session_complex_decode_reference(spec, s.rt.inv_window, s.gain, s.n_fft, s.hop)
         return out.reshape(batch_shape + (T * s.hop,))
 
     return run

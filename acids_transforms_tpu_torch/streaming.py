@@ -17,10 +17,9 @@ decision, the scans execute it):
 * ``backend="auto"`` takes a session kernel on a CUDA tensor whenever the
   chain and shape are covered, and the generic chunk scan on a CPU tensor
   (as the JAX package's ``auto`` does off the TPU).  A covered call whose
-  kernel is not ported yet (the complex decode, the ``pghi`` / ``pghi_gl``
-  sessions, ``sinebank``) raises ``NotImplementedError`` on a CUDA tensor
-  naming its ROADMAP item; a chain the kernels do not cover structurally runs
-  the generic scan.
+  kernel is not ported yet (the ``pghi_gl`` sessions, ``sinebank``) raises
+  ``NotImplementedError`` on a CUDA tensor naming its ROADMAP item; a chain
+  the kernels do not cover structurally runs the generic scan.
 * ``backend="fused"`` takes the session on either device (on the CPU its
   kernel wrapper runs the plain PyTorch version, like the JAX package's
   interpret mode) and raises ``ValueError`` when no session covers the call.
@@ -57,14 +56,11 @@ __all__ = [
     "session_frame_times",
 ]
 
-#: sessions whose kernel comes with the next slice (the complex decode's
-#: only; the complex roundtrip is kernel L)
+#: sessions whose kernel comes with a later slice
 _UNPORTED_PLANS = {
-    "pghi": "Queue 1 item 9b (kernels N and Q, RT-PGHI)",
     "pghi_gl": "Queue 1 item 9b (kernel O, RT-PGHI + pinned-context GL)",
     "sinebank": "Queue 1 item 9b (sinebank_stream, _sinebank_session)",
 }
-_UNPORTED_DECODE = dict(_UNPORTED_PLANS, complex="Queue 1 item 9b (kernel S, the complex decode)")
 
 
 def _session_parts(chain):
@@ -104,17 +100,17 @@ def _check_backend(name: str, backend: str) -> None:
         )
 
 
-def _decide(plan: Optional[str], backend: str, device, unported=_UNPORTED_PLANS) -> str:
+def _decide(plan: Optional[str], backend: str, device) -> str:
     """The shared rule: ``plan`` is the session that covers the call (None:
     none does)."""
     if backend == "generic" or plan is None:
         return "generic"
     if backend == "auto" and not _on_card(device):
         return "generic"
-    if plan in unported:
+    if plan in _UNPORTED_PLANS:
         raise NotImplementedError(
             "the %r streaming session is not ported yet (ROADMAP %s); use "
-            "backend='generic'" % (plan, unported[plan])
+            "backend='generic'" % (plan, _UNPORTED_PLANS[plan])
         )
     return plan
 
@@ -160,9 +156,9 @@ def plan_invert(
     backend: str = "auto",
     device=None,
 ) -> str:
-    """The :func:`scan_invert` dispatch decision, as data: ``"random"`` (the
-    decode session kernel) or ``"generic"``; a covered ``"complex"`` /
-    ``"pghi"`` / ``"pghi_gl"`` / ``"sinebank"`` session raises
+    """The :func:`scan_invert` dispatch decision, as data: ``"random"``,
+    ``"pghi"`` or ``"complex"`` (decode session kernels) or ``"generic"``; a
+    covered ``"pghi_gl"`` / ``"sinebank"`` session raises
     ``NotImplementedError`` until its slice (see :func:`plan_forward`)."""
     from .ops.cuda.stream_step import fused_random_invert_available
 
@@ -189,7 +185,7 @@ def plan_invert(
             "None, 2-chain only — and an OLA-supported layout); use "
             "backend='auto' to fall back to the generic scan"
         )
-    return _decide(plan, backend, device, _UNPORTED_DECODE)
+    return _decide(plan, backend, device)
 
 
 def _same_framing(sub2) -> bool:
@@ -205,10 +201,10 @@ def plan_roundtrip(
     backend: str = "auto",
     device=None,
 ) -> str:
-    """The :func:`scan_roundtrip` dispatch decision, as data: ``"complex"``
-    or ``"random"`` (session kernels) or ``"generic"``; a covered
-    ``"pghi"`` / ``"pghi_gl"`` / ``"sinebank"`` session raises
-    ``NotImplementedError`` until its slice (see :func:`plan_forward`)."""
+    """The :func:`scan_roundtrip` dispatch decision, as data: ``"complex"``,
+    ``"random"`` or ``"pghi"`` (session kernels) or ``"generic"``; a covered
+    ``"pghi_gl"`` / ``"sinebank"`` session raises ``NotImplementedError``
+    until its slice (see :func:`plan_forward`)."""
     from .ops.cuda.stream_step import fused_forward_session_available, fused_roundtrip_available
 
     _check_backend("scan_roundtrip", backend)
@@ -349,21 +345,29 @@ def scan_invert(
     ``(..., T * R)`` (``R = hop`` for ``[OverlapAdd, RealtimeSTFT]``), chunks
     of ``chunk_frames`` frames through ``chain.step_invert`` (the last chunk
     zero-frame padded, the output cut back).  ``y`` is magnitudes for the
-    phaseless modes, a complex spectrum for ``None``.  A recognized chain in
-    ``"random"`` mode runs the whole-session decode kernel on a CUDA tensor
-    (P); feature chains ``[..., Magnitude]`` run ``Magnitude.invert`` on the
-    whole session first (stateless and frame-local: equal to the per-chunk
-    application)."""
-    from .ops.cuda.stream_step import make_fused_random_invert
+    phaseless modes, a complex spectrum for ``None``.  On a CUDA tensor a
+    recognized chain runs whole-session decode kernels: P (``"random"``),
+    the RT-PGHI recurrence and P's synthesis (``"pghi"``, Q), S (a complex
+    spectrum); feature chains ``[..., Magnitude]`` run ``Magnitude.invert``
+    on the whole session first (stateless and frame-local: equal to the
+    per-chunk application)."""
+    from .ops.cuda.stream_step import (
+        make_fused_complex_invert,
+        make_fused_pghi_invert,
+        make_fused_random_invert,
+    )
 
     _no_mesh(mesh)
     plan = plan_invert(chain, tuple(y.shape), chunk_frames, inversion_mode,
                        y_is_complex=y.is_complex(), backend=backend, device=y.device)
     g = _session_generator(generator, y.device)
-    if plan == "random":
+    if plan == "complex":
+        return make_fused_complex_invert(_session_parts(chain)[0], chunk_frames)(y)
+    if plan in ("random", "pghi"):
         sub2, mag_t = _session_parts(chain)
         ym = mag_t.invert(y) if mag_t is not None else y
-        return make_fused_random_invert(sub2, chunk_frames, generator=g)(ym)
+        maker = make_fused_random_invert if plan == "random" else make_fused_pghi_invert
+        return maker(sub2, chunk_frames, generator=g)(ym)
 
     T = y.shape[-2]
     n = -(-T // chunk_frames)
@@ -397,11 +401,14 @@ def scan_roundtrip(
     delayed by ``(overlap - 1) * hop`` samples.  With ``inversion_mode`` set
     the roundtrip is phaseless (the spectrum's magnitude is inverted);
     ``None`` keeps the complex spectrum.  On a CUDA tensor recognized chains
-    run one session kernel: L (complex), M (``"random"``); a
-    ``[..., Magnitude]`` chain in ``"random"`` mode runs R, the Magnitude
-    forward and invert on the whole session, then P."""
+    run session kernels: L (complex), M (``"random"``), N (``"pghi"``: the
+    magnitude encode, the RT-PGHI recurrence, P's synthesis); a ``[...,
+    Magnitude]`` chain runs the magnitude encode, the Magnitude forward and
+    invert on the whole session, then P (``"random"``) or Q (``"pghi"``)."""
     from .ops.cuda.stream_step import (
-        make_fused_forward_session,
+        make_fused_magnitude_session,
+        make_fused_pghi_invert,
+        make_fused_pghi_roundtrip,
         make_fused_random_invert,
         make_fused_random_roundtrip,
         make_fused_roundtrip,
@@ -413,14 +420,15 @@ def scan_roundtrip(
     g = _session_generator(generator, x.device)
     if plan == "complex":
         return make_fused_roundtrip(chain, chunk_size)(x)
-    if plan == "random":
+    if plan in ("random", "pghi"):
         sub2, mag_t = _session_parts(chain)
         if mag_t is None:
-            return make_fused_random_roundtrip(chain, chunk_size, generator=g)(x)
-        spec, _ = make_fused_forward_session(sub2, chunk_size)(x)
-        mags = mag_t.invert(mag_t.forward(spec))
+            maker = make_fused_random_roundtrip if plan == "random" else make_fused_pghi_roundtrip
+            return maker(chain, chunk_size, generator=g)(x)
         T_c = chunk_size // sub2.transforms[1].hop_length
-        return make_fused_random_invert(sub2, T_c, generator=g)(mags)
+        mags = mag_t.invert(mag_t.forward(make_fused_magnitude_session(sub2, chunk_size)(x)))
+        maker = make_fused_random_invert if plan == "random" else make_fused_pghi_invert
+        return maker(sub2, T_c, generator=g)(mags)
 
     # states are mode-minimal: each stateful child allocates the carry of
     # the session's inversion mode

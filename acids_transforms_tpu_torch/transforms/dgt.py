@@ -96,9 +96,8 @@ class DGT(STFT):
 class RealtimeDGT(RealtimeSTFT):
     """Streaming DGT: the machinery of :class:`RealtimeSTFT` with the gaussian
     analysis window, its exact ``gamma`` and the scaled canonical dual
-    synthesis window.  Its default mode, ``pghi`` (causal RT-PGHI), comes with
-    the next slice (ROADMAP Queue 1 item 9b); until then build it with
-    ``inversion_mode="random"`` or ``"keep_input"`` for streaming."""
+    synthesis window.  Its default mode is ``pghi`` (causal RT-PGHI, with this
+    transform's ``tolerance``)."""
 
     def __init__(
         self,

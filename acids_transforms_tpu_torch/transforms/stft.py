@@ -10,9 +10,11 @@ item 8).
 
 ``RealtimeSTFT`` ported: the per-frame forward, the dual-window synthesis and
 the streaming inversion (``init_state`` / ``step_invert``) of the complex
-spectrum and of the modes ``keep_input`` and ``random``.  Its streaming modes
-``pghi``, ``pghi_gl`` and ``sinebank`` (and their carried state) raise
-``NotImplementedError`` until the next slice (ROADMAP Queue 1 item 9b).
+spectrum and of the modes ``keep_input``, ``random`` and ``pghi`` (causal
+RT-PGHI carrying two magnitude frames and one phase frame; ``pghi_exact`` maps
+to it, there is no heap online).  Its streaming modes ``pghi_gl`` and
+``sinebank`` (and their carried state) raise ``NotImplementedError`` until
+their slice (ROADMAP Queue 1 item 9b).
 
 The PGHI modes work on any named window through its effective
 time-frequency ratio (``gamma``).  On a CUDA tensor ``pghi`` / ``pghi_bidir``
@@ -37,13 +39,13 @@ from .base import AudioTransform
 __all__ = ["STFT", "RealtimeSTFT"]
 
 _UNPORTED_MODES = {"sinebank": "Queue 1 item 8 (needs ops/interp.py)"}
-#: streaming modes whose carried state comes with the next slice
+#: streaming modes whose carried state comes with a later slice
 _UNPORTED_STREAM_MODES = {
-    "pghi": "Queue 1 item 9b (pghi_stream)",
-    "pghi_exact": "Queue 1 item 9b (pghi_stream)",
     "pghi_gl": "Queue 1 item 9b (pghi_gl_stream)",
     "sinebank": "Queue 1 item 9b (sinebank_stream)",
 }
+#: streaming modes that carry the RT-PGHI frame history
+_PGHI_STREAM_MODES = ("pghi", "pghi_exact")
 
 
 class STFT(AudioTransform):
@@ -356,10 +358,13 @@ class RealtimeSTFT(STFT):
 
     Streaming state is explicit (``init_state`` / ``invert_stream``, alias
     ``step_invert``) and mode-minimal: the complex, ``keep_input`` and
-    ``random`` inversions carry nothing, so their state is an empty dict.
-    The eager ``invert`` keeps the state on ``self``.  ``batch_size``,
-    ``gl_iterations``, ``gl_context`` and ``lookahead_frames`` are the
-    streaming ``pghi_gl`` polish's settings, kept for the next slice.
+    ``random`` inversions carry nothing, so their state is an empty dict;
+    ``pghi`` carries the RT-PGHI frame history (``mag_buffer (..., 2, F)``,
+    ``phase_buffer (..., F)``).  The eager ``invert`` keeps the state on
+    ``self``, and its ``keep_input`` / ``random`` calls keep the PGHI history
+    too, so a later eager switch to ``pghi`` starts from real context.
+    ``batch_size``, ``gl_iterations``, ``gl_context`` and ``lookahead_frames``
+    are the streaming ``pghi_gl`` polish's settings, kept for its slice.
     """
 
     def __init__(
@@ -418,12 +423,20 @@ class RealtimeSTFT(STFT):
     # ------------------------------------------------------------- streaming
     def init_state(self, batch_shape: Tuple[int, ...] = (), mode: Optional[str] = None) -> Dict[str, torch.Tensor]:
         """Fresh streaming-inversion state: mode-minimal, so the complex,
-        ``keep_input`` and ``random`` inversions get an empty dict.  ``mode=None``
-        resolves to the configured ``inversion_mode``; the modes whose carry
-        belongs to the next slice raise."""
+        ``keep_input`` and ``random`` inversions get an empty dict and
+        ``pghi`` / ``pghi_exact`` the RT-PGHI frame history (2 magnitude
+        frames, 1 phase frame, zeros).  ``mode=None`` resolves to the
+        configured ``inversion_mode``; the modes whose carry belongs to a
+        later slice raise."""
         mode = self._resolve_mode(mode)
         self._refuse_unported(mode)
-        return {}
+        if mode not in _PGHI_STREAM_MODES:
+            return {}
+        bs = tuple(batch_shape)
+        return {
+            "mag_buffer": torch.zeros(bs + (2, self.n_bins), device=self.device),
+            "phase_buffer": torch.zeros(bs + (self.n_bins,), device=self.device),
+        }
 
     def reset(self, batch_shape: Tuple[int, ...] = (), mode: Optional[str] = None) -> None:
         self._state = self.init_state(tuple(batch_shape), mode=mode)
@@ -457,10 +470,12 @@ class RealtimeSTFT(STFT):
         inversion_mode: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
         phase: Optional[torch.Tensor] = None,
+        angles: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         self._check(x)
         if not x.is_complex():
-            return self.invert_without_phase(x, inversion_mode, generator=generator, phase=phase)
+            return self.invert_without_phase(x, inversion_mode, generator=generator, phase=phase,
+                                             angles=angles)
         return irfft_frames(x, n_fft=self.n_fft, impl=self.impl) * self.inv_window
 
     def invert_without_phase(
@@ -469,12 +484,19 @@ class RealtimeSTFT(STFT):
         inversion_mode: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
         phase: Optional[torch.Tensor] = None,
+        angles: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Frames ``(..., T, n_fft)`` from magnitudes ``(..., T, F)``:
         ``keep_input`` takes ``phase`` or the last forward's, ``random``
-        draws from ``generator`` (none: one derived from ``seed``)."""
+        draws from ``generator`` (none: one derived from ``seed``), ``pghi``
+        / ``pghi_exact`` run one streaming RT-PGHI step from the state kept
+        on ``self`` (``angles`` pins its silent bins' phases)."""
         mode = self._resolve_mode(inversion_mode)
         self._refuse_unported(mode)
+        if mode in _PGHI_STREAM_MODES:
+            state = self._eager_state(mag, mode="pghi")
+            self._state, y = self.invert_stream(state, mag, "pghi", generator=generator, angles=angles)
+            return y
         if mode == "keep_input":
             phase = self._recall_phase(mag) if phase is None else phase
             if phase is None:
@@ -484,9 +506,9 @@ class RealtimeSTFT(STFT):
         else:
             raise ValueError("inversion mode %s not valid." % mode)
         spec = torch.polar(mag, phase.to(mag.dtype))
-        # the eager state follows the session (the PGHI frame history that a
-        # later eager mode switch would read comes with the next slice)
-        self._state = self._update_buffers(self._eager_state(mag, mode=mode), spec)
+        # eager keep_input / random sessions keep the PGHI frame history, so
+        # that a later eager switch to pghi sees real context
+        self._state = self._update_buffers(self._eager_state(mag, mode="pghi"), spec)
         return self.invert(spec)
 
     def invert_stream(
@@ -495,20 +517,49 @@ class RealtimeSTFT(STFT):
         x: torch.Tensor,
         inversion_mode: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
+        angles: Optional[torch.Tensor] = None,
     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """Pure streaming inversion step: ``(state, spec_or_mag (..., T, F))
-        -> (state, frames (..., T, n_fft))``."""
+        -> (state, frames (..., T, n_fft))``.  ``pghi`` / ``pghi_exact`` run
+        :meth:`pghi_stream` (``angles`` pins the silent bins' phases) and
+        carry the history of the spectrum they build."""
         if x.is_complex():
             return self._update_buffers(state, x), self.invert(x)
         mode = self._resolve_mode(inversion_mode)
         self._refuse_unported(mode)
+        if mode in _PGHI_STREAM_MODES:
+            spec = torch.polar(x, self.pghi_stream(state, x, generator=generator, angles=angles))
+            return self._update_buffers(state, spec), self.invert(spec)
         return state, self.invert(x, inversion_mode=mode, generator=generator)
 
     step_invert = invert_stream
 
+    def pghi_stream(
+        self,
+        state: Dict[str, torch.Tensor],
+        mag: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        angles: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Causal PGHI phases of one chunk ``(..., T, F)``, seeded by the
+        carried frame history (backward time stencil, the chunk's own
+        threshold).  Silent bins take ``angles`` or a draw from ``generator``
+        (none: one derived from ``seed``)."""
+        if "mag_buffer" not in state:
+            raise KeyError(
+                "streaming state has no PGHI history: create it with "
+                "init_state(batch_shape, mode='pghi') (states are mode-minimal)"
+            )
+        return pghi_scan(
+            mag, self.gamma, self.n_fft, self.hop_length, tolerance=self.tolerance,
+            prev_mag=state["mag_buffer"], prev_phase=state["phase_buffer"],
+            time_stencil="backward", angles=self._angles(mag, generator, angles),
+        )
+
     def _update_buffers(self, state: Dict[str, torch.Tensor], spec: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Carry the trailing 2 magnitude frames and the last phase frame;
-        a no-op for states without PGHI history (the modes of this slice)."""
+        """Carry the trailing 2 magnitude frames and the last phase frame
+        (wrapped: the angle of the spectrum); a no-op for states without PGHI
+        history (the complex, ``keep_input`` and ``random`` sessions)."""
         if "mag_buffer" not in state:
             return state
         new = dict(state)
@@ -550,7 +601,8 @@ class RealtimeSTFT(STFT):
 
         chunk = 4 * self.n_fft
         outs = {}
-        for mode in (None, "keep_input", "random"):
+        ported = [m for m in self.get_inversion_modes() if m not in _UNPORTED_STREAM_MODES]
+        for mode in [None] + ported:
             oadd = OverlapAdd(self.n_fft, self.hop_length, sr=self.sr, device=self.device)
             self.reset(x.shape[:-1], mode=mode or "random")
             pieces = []

@@ -14,7 +14,10 @@ two-channel forward -> IF integration and inverse DGT), STFT + Polar (fit
 -> fused forward), and the streaming chain OverlapAdd + RealtimeSTFT on 64
 concurrent mono sessions of 4 s (``--streams``): encode, the complex and the
 random roundtrip, the random decode and the [.., Magnitude] random roundtrip,
-each as one whole-session kernel, held against the generic chunk scan.  It shows by the launch counters that each path went
+each as one whole-session kernel, then (phase 4g) the RT-PGHI roundtrip and
+decode and the [.., Magnitude] RT-PGHI roundtrip of that chain in pghi mode
+and of OverlapAdd + RealtimeDGT, and the complex decode, all held against the
+generic chunk scan.  It shows by the launch counters that each path went
 through its kernels, times them, and prints
 
 * a line with one JSON object ``{"kernels": [...]}`` (per kernel: launches on
@@ -468,7 +471,7 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         ref, out = x[..., : SL - delay - 2048], y[..., delay: SL - 2048]
         return 10 * math.log10((ref ** 2).sum().item() / max(((out - ref) ** 2).sum().item(), 1e-300))
 
-    for k in ("session_encode", "session_roundtrip", "session_random_roundtrip", "session_random_decode"):
+    for k in ss.launches:
         counts[k] = 0
     sc_of = make_sc(sx)
     # encode
@@ -520,7 +523,7 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         "3-chain [OverlapAdd, RealtimeSTFT, Magnitude] random roundtrip",
         lambda: streaming.scan_roundtrip(f_chain, sx, CH, "random", generator=sgen(3)),
         lambda: streaming.scan_roundtrip(f_chain, sx, CH, "random", generator=sgen(3), backend="generic"),
-        {"session_encode": 1, "session_random_decode": 1})
+        {"session_magnitude": 1, "session_random_decode": 1})
     # one stream: under one wave of the card's SMs
     x1, sc1 = sx[:1], make_sc(sx[:1])
     y1 = route("B=1 complex roundtrip", lambda: streaming.scan_roundtrip(s_chain, x1, CH), {"session_roundtrip": 1},
@@ -607,7 +610,194 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
             log(f"    B={b:3d} {name:18s}: {k_ms:9.3f} ms / {g_ms:9.3f} ms ({g_ms / k_ms:.2f}x)")
     log("  stream quality: " + json.dumps({k: round(v, 6) for k, v in quality.items()}))
     return dict(sx=sx, mags=mags.contiguous(), rt=s_rt, chain=s_chain, n_frames=n_sf, ss=ss,
-                angles=ss.session_angles((SB,), SL // CH, T_C, F, dev, sgen(8)))
+                angles=ss.session_angles((SB,), SL // CH, T_C, F, dev, sgen(8)),
+                spec=spec_k, route=route, generic=generic, sgen=sgen, make_sc=make_sc, snr_of=snr_of)
+
+
+def stream_pghi_phase(args, dev, errs, counts, stream):
+    """Phase 4g: the streaming RT-PGHI sessions and the complex decode, on
+    phase 4f's 64 mono sessions of 43 x 4096 samples, through the entry
+    points, for the hann chain OverlapAdd(1024, 256) + RealtimeSTFT(1024, 256,
+    hann, inversion_mode="pghi") (``bench.py:560-562``) and the default
+    OverlapAdd(1024, 256) + RealtimeDGT(1024, 256):
+
+    * ``scan_roundtrip(pghi)`` (N: the magnitude encode, the recurrence, P's
+      synthesis), ``scan_invert(pghi)`` of the chain window's offline
+      magnitudes (Q: the recurrence, P's synthesis), and the 3-chain
+      ``[.., Magnitude(unipolar, log1p, mel=False)]`` pghi roundtrip (the
+      magnitude encode, Magnitude forward and invert, Q), each held against
+      the generic chunk scan with a generator in the same state by spectral
+      convergence within ``1.1 s + 1e-3`` of the scan's: the roundtrip at
+      ``bench.py:566-592``'s delay and frames, the decode at ``:640-675``'s
+      (the kernels' magnitudes round otherwise than the scan's ``torch.stft``
+      products, which can move an anchor at a threshold, so sample equality is
+      not the gate);
+    * for the hann chain the complex decode ``scan_invert`` of
+      ``scan_forward``'s spectra (S) within 1e-4 of the generic scan, and S
+      after R equal to the complex roundtrip L within 1e-5 with an SNR of at
+      least 100 dB after the delay.
+
+    Every launch counter is 0 before each route and read after it.  Then each
+    new kernel against its plain version on identical inputs (the recurrence
+    on the kernel's own magnitudes) at the main shape, 512/128 and 2048/512,
+    and the routes' times beside the generic scan's at B = 1, 8 and 64.
+    Returns what phase 5 needs."""
+    from acids_transforms_tpu_torch import streaming
+    from acids_transforms_tpu_torch import transforms as T
+
+    ss, sx, route, generic, sgen = (stream[k] for k in ("ss", "sx", "route", "generic", "sgen"))
+    SB, SL, CH = sx.shape[0], STREAM_LEN, STREAM_CHUNK
+    T_C = CH // HOP
+    F = N_FFT // 2 + 1
+    delay = N_FFT - HOP
+    sc_of = stream["make_sc"](sx)
+    log(f"[4g] streaming RT-PGHI and the complex decode on {SB} mono sessions of {SL} samples, chunks of {CH}")
+    pghi_launches = {"session_magnitude": 1, "rt_pghi_phases": 1, "session_random_decode": 1}
+    decode_launches = {"rt_pghi_phases": 1, "session_random_decode": 1}
+    h_chain = T.OverlapAdd(N_FFT, HOP) + T.RealtimeSTFT(n_fft=N_FFT, hop_length=HOP, inversion_mode="pghi")
+    d_chain = T.OverlapAdd(N_FFT, HOP) + T.RealtimeDGT(n_fft=N_FFT, hop_length=HOP)
+    quality, dec_mags = {}, {}
+
+    def offline_mags(v, window):
+        """The chain window's centred offline magnitudes, whole chunks of frames (bench.py:641-643)."""
+        m = torch.stft(v, N_FFT, HOP, window=window, center=True, pad_mode="reflect",
+                       return_complex=True).abs().transpose(-2, -1)
+        return m[..., : m.shape[-2] // T_C * T_C, :].contiguous()
+
+    def sc_dec_of(mags, window):
+        def sc(y):
+            m = offline_mags(y[..., N_FFT // 2:], window)
+            n = min(m.shape[-2], mags.shape[-2]) - 4
+            return (torch.linalg.norm(m[..., 2:n, :] - mags[..., 2:n, :]) / torch.linalg.norm(mags[..., 2:n, :])).item()
+        return sc
+
+    def sc_pair(label, kernel_fn, generic_fn, expect, sc, seed):
+        y1 = route(label, lambda: kernel_fn(sgen(seed)), expect)
+        y2 = generic(label, lambda: generic_fn(sgen(seed)))
+        s1, s2 = sc(y1), sc(y2)
+        log(f"    kernel route vs generic scan (same seed): rel {rel_err(y1, y2):.3e}; spectral convergence "
+            f"kernel {s1:.5f}, generic {s2:.5f} (must be <= {1.1 * s2 + 1e-3:.5f})")
+        require(tuple(y1.shape) == tuple(y2.shape) and torch.isfinite(y1).all().item(), f"{label}: bad output")
+        require(s1 <= 1.1 * s2 + 1e-3, f"{label}: converges worse than the generic scan")
+        return s1, s2
+
+    for name, chain, seed in (("hann", h_chain, 70), ("dgt", d_chain, 80)):
+        rt = chain[1]
+        f_chain = chain + T.Magnitude(mode="unipolar", contrast="log1p", mel=False, n_fft=N_FFT)
+        # the chain streams on the card eagerly too: state, one step, one inversion
+        st = chain.init_state((2,))
+        st, fr = chain.step(st, sx[:2, :CH])
+        st, y_e = chain.step_invert(st, fr.abs(), generator=sgen(seed))
+        require(torch.isfinite(y_e).all().item() and set(st[1]) == {"mag_buffer", "phase_buffer"},
+                f"{name}: the eager pghi step failed")
+        quality[f"sc_{name}_roundtrip"] = sc_pair(
+            f"{name} pghi roundtrip: scan_roundtrip(pghi)",
+            lambda g: streaming.scan_roundtrip(chain, sx, CH, "pghi", generator=g),
+            lambda g: streaming.scan_roundtrip(chain, sx, CH, "pghi", generator=g, backend="generic"),
+            pghi_launches, sc_of, seed + 1)
+        mags = offline_mags(sx, rt.window)
+        dec_mags[name] = mags
+        quality[f"sc_{name}_decode"] = sc_pair(
+            f"{name} pghi decode: scan_invert(pghi) of {tuple(mags.shape)} offline magnitudes",
+            lambda g: streaming.scan_invert(chain, mags, T_C, "pghi", generator=g),
+            lambda g: streaming.scan_invert(chain, mags, T_C, "pghi", generator=g, backend="generic"),
+            decode_launches, sc_dec_of(mags, rt.window), seed + 2)
+        quality[f"sc_{name}_3chain"] = sc_pair(
+            f"{name} 3-chain [.., Magnitude] pghi roundtrip",
+            lambda g: streaming.scan_roundtrip(f_chain, sx, CH, "pghi", generator=g),
+            lambda g: streaming.scan_roundtrip(f_chain, sx, CH, "pghi", generator=g, backend="generic"),
+            pghi_launches, sc_of, seed + 3)
+
+    # S: the complex decode of the encode's spectra (R ran in phase 4f)
+    spec = stream["spec"]
+    y_s = route("complex decode: scan_invert(complex spectrum)", lambda: streaming.scan_invert(h_chain, spec, T_C),
+                {"session_complex_decode": 1})
+    y_sg = generic("complex decode", lambda: streaming.scan_invert(h_chain, spec, T_C, backend="generic"))
+    y_l = ss.make_fused_roundtrip(h_chain, CH)(sx)
+    e_g, e_l = rel_err(y_s, y_sg), rel_err(y_s, y_l)
+    snr_s = stream["snr_of"](sx, y_s)
+    log(f"    kernel route vs generic scan: rel {e_g:.3e} (tol 1e-04); S after R vs L: rel {e_l:.3e} (tol 1e-05); "
+        f"SNR after the {delay}-sample delay {snr_s:.2f} dB (must be >= 100)")
+    require(tuple(y_s.shape) == (SB, SL) and torch.isfinite(y_s).all().item(), f"complex decode output {tuple(y_s.shape)}")
+    require(e_g <= 1e-4 and e_l <= 1e-5 and snr_s >= 100.0, "complex decode out of budget")
+    quality["snr_complex_decode_db"] = snr_s
+    del y_s, y_sg, y_l
+
+    # each new kernel against its plain version on identical inputs
+    def check_kernels(label, chain, x, chunk):
+        rt = chain[1]
+        n_fft, hop = rt.n_fft, rt.hop_length
+        Fb, T_c = n_fft // 2 + 1, chunk // hop
+        n_chunks = -(-x.shape[-1] // chunk)
+        Tn = n_chunks * T_c
+        gain = chain[0].gain_compensation
+        ang = ss.session_angles((x.shape[0],), n_chunks, T_c, Fb, dev, sgen(90))
+        mag_k = ss.make_fused_magnitude_session(chain, chunk)(x)
+        mag_p = ss.session_magnitude_reference(x, rt.window, n_fft, hop, Tn)
+        args_r = (rt.gamma, n_fft, hop, rt.tolerance, T_c)
+        ph_k = ss.rt_pghi_phases(mag_k, ang, *args_r)
+        ph_p = ss.rt_pghi_phases_reference(mag_k, ang, *args_r)
+        syn = ss._syn_basis(rt.inv_window, float(gain), n_fft, hop)
+        y_k = ss._launch_decode(mag_k, ph_k, syn, n_fft, hop)
+        y_p = ss.session_decode_reference(mag_k, ph_k, rt.inv_window, gain, n_fft, hop)
+        spec, _ = ss.make_fused_forward_session(chain, chunk)(x)
+        s_k = ss.make_fused_complex_invert(chain, T_c)(spec)
+        s_p = ss.session_complex_decode_reference(spec, rt.inv_window, gain, n_fft, hop)
+        torch.cuda.synchronize()
+        e_m, e_y, e_s = rel_err(mag_k, mag_p), rel_err(y_k, y_p), rel_err(s_k, s_p)
+        e_ph = (unit_spec(mag_k, ph_k) - unit_spec(mag_k, ph_p)).abs().max().item()
+        differ = (ph_k != ph_p).float().mean().item()
+        log(f"  kernels vs plain, {label}: magnitude encode rel {e_m:.3e} (tol 2e-05); recurrence "
+            f"|X| (cos, sin)(phase) off by {e_ph:.3e} of the largest (tol 1e-04; phases differ in "
+            f"{100 * differ:.4f}% of bins, by at most {(ph_k - ph_p).abs().max().item():.3g} rad of "
+            f"{ph_p.abs().max().item():.3g}); synthesis of its phases rel {e_y:.3e}, S rel {e_s:.3e} (tol 2e-05)")
+        for what, out in (("magnitude encode", mag_k), ("recurrence", ph_k), ("synthesis", y_k), ("S", s_k)):
+            require(torch.isfinite(out).all().item(), f"{what} {label}: not finite")
+        require(mag_k.shape == mag_p.shape == (x.shape[0], Tn, Fb) and ph_k.shape == ph_p.shape
+                and s_k.shape == s_p.shape == (x.shape[0], Tn * hop), f"{label}: shapes")
+        require(e_m <= 2e-5 and e_ph <= 1e-4 and e_y <= 2e-5 and e_s <= 2e-5, f"{label}: a kernel disagrees with plain")
+        errs["Rmag"] = max(errs.get("Rmag", 0.0), abs_err(mag_k, mag_p))
+        errs["RT"] = max(errs.get("RT", 0.0), e_ph)
+        errs["P"] = max(errs.get("P", 0.0), abs_err(y_k, y_p))
+        errs["S"] = max(errs.get("S", 0.0), abs_err(s_k, s_p))
+        return mag_k, ang
+
+    main_mag, main_ang = check_kernels(f"main shape hann {SB} x {SL}", h_chain, sx, CH)
+    check_kernels(f"main shape dgt {SB} x {SL}", d_chain, sx, CH)
+    check_kernels("512/128 hann, 3 x 20000 (ragged)",
+                  T.OverlapAdd(512, 128) + T.RealtimeSTFT(n_fft=512, hop_length=128, inversion_mode="pghi"),
+                  sx[:3, :20000].contiguous(), 2048)
+    check_kernels("2048/512 dgt, 2 x 30000 (ragged)", T.OverlapAdd(2048, 512) + T.RealtimeDGT(n_fft=2048, hop_length=512),
+                  sx[:2, :30000].contiguous(), 4096)
+
+    # the routes through the entry points beside the generic scan (a Python
+    # loop over frames: one run each), B = 1, 8, 64
+    log("  route times (CUDA events around the entry point; kernel route median of 3, generic scan one run)")
+    route_ms = {}
+    for b in sorted({1, 8, SB}):
+        xb = sx[:b]
+        rows = (
+            ("hann pghi roundtrip", lambda g: streaming.scan_roundtrip(h_chain, xb, CH, "pghi", generator=g),
+             lambda g: streaming.scan_roundtrip(h_chain, xb, CH, "pghi", generator=g, backend="generic")),
+            ("hann pghi decode", lambda g: streaming.scan_invert(h_chain, dec_mags["hann"][:b], T_C, "pghi", generator=g),
+             lambda g: streaming.scan_invert(h_chain, dec_mags["hann"][:b], T_C, "pghi", generator=g,
+                                             backend="generic")),
+            ("hann complex decode", lambda g: streaming.scan_invert(h_chain, spec[:b], T_C),
+             lambda g: streaming.scan_invert(h_chain, spec[:b], T_C, backend="generic")),
+            ("dgt pghi roundtrip", lambda g: streaming.scan_roundtrip(d_chain, xb, CH, "pghi", generator=g),
+             lambda g: streaming.scan_roundtrip(d_chain, xb, CH, "pghi", generator=g, backend="generic")),
+            ("dgt pghi decode", lambda g: streaming.scan_invert(d_chain, dec_mags["dgt"][:b], T_C, "pghi", generator=g),
+             lambda g: streaming.scan_invert(d_chain, dec_mags["dgt"][:b], T_C, "pghi", generator=g,
+                                             backend="generic")),
+        )
+        for name, kfn, gfn in rows:
+            k_ms = time_ms(lambda: kfn(sgen(99)), 3, 1)
+            g_ms = time_ms(lambda: gfn(sgen(99)), 1, 0)
+            route_ms[(name, b)] = (k_ms, g_ms)
+            log(f"    B={b:3d} {name:20s}: {k_ms:9.3f} ms / {g_ms:9.3f} ms ({g_ms / k_ms:.2f}x)")
+    log("  RT-PGHI stream quality: " + json.dumps(
+        {k: [round(v, 6) for v in val] if isinstance(val, tuple) else round(val, 6) for k, val in quality.items()}))
+    return dict(mag=main_mag, angles=main_ang, chain=h_chain, spec=spec)
 
 
 def main() -> int:
@@ -1322,6 +1512,8 @@ def main() -> int:
 
     # ------------------------------------------ 4f. streaming sessions
     stream = stream_phase(args, dev, gen, errs, counts, (spectral, glstep, pghi_kernel))
+    # ---------------------------- 4g. streaming RT-PGHI, the complex decode
+    rt_stream = stream_pghi_phase(args, dev, errs, counts, stream)
 
     # ------------------------------------------------------------ 5. times
     log("[5] kernel times at the main-path shape (CUDA events, median of "
@@ -1699,6 +1891,42 @@ def main() -> int:
              bound=bound_of(8.0 * s_fr * F + s_out, s_fft + 2.0 * N_FFT * s_fr + 22.0 * s_fr * F),
              ceiling=ceiling_of(syn_flops(t_dec, r_dec) + 22.0 * s_fr * F)),
     ]
+    # ---- the RT-PGHI sessions and the complex decode (phase 4g's shape).
+    # The magnitude encode: R's analysis, |X| written instead of (re, im), the
+    # bound R's less half the output bytes plus 4 operations per bin.  The
+    # recurrence, as K's: magnitudes read, phases written, the silent bins'
+    # angles read (this run's share), some 150 operations per bin; no library
+    # call computes it.  S: the spectrum read, the audio written, one inverse
+    # FFT, the window and the overlap-add per frame, P's synthesis product;
+    # yardstick irfft x window + fold, as P's.
+    rt_mag, rt_ang, h_chain, rt_spec = (rt_stream[k] for k in ("mag", "angles", "chain", "spec"))
+    h_rt = h_chain[1]
+    rt_args = (h_rt.gamma, N_FFT, HOP, h_rt.tolerance, STREAM_CHUNK // HOP)
+    chunk_max = rt_mag.reshape(SB, -1, STREAM_CHUNK // HOP * F).amax(-1).repeat_interleave(STREAM_CHUNK // HOP, 1)
+    rt_silent = (rt_mag <= torch.clamp_min(h_rt.tolerance * chunk_max, 1.19e-7)[..., None]).float().mean().item()
+    rt_spec_ri = torch.view_as_real(rt_spec).contiguous()
+    specs += [
+        dict(key="Rmag", name="session_magnitude_encode", source=stream_src, replaces=stream_tpu + ":602",
+             launches=counts["session_magnitude"],
+             run=lambda: ss._launch_encode(sx, s_wc, s_ws, N_FFT, HOP, n_sf, magnitude=True),
+             plain=lambda: ss.session_magnitude_reference(sx, s_rt.window, N_FFT, HOP, n_sf),
+             library=lambda: lib_encode().abs(), bound=bound_of(s_in + s_spec / 2, s_fft + (N_FFT + 4.0 * F) * s_fr),
+             ceiling=ceiling_of(ana_flops(s_fr) + 4.0 * s_fr * F)),
+        dict(key="RT", name="rt_pghi_phases", source="acids_transforms_tpu_torch/csrc/pghi.cu",
+             replaces=stream_tpu + ":668", launches=counts["rt_pghi_phases"],
+             run=lambda: ss._launch_rt_pghi(rt_mag, rt_ang, *rt_args),
+             plain=lambda: ss.rt_pghi_phases_reference(rt_mag, rt_ang, *rt_args), plain_once=True,
+             library=None, bound=bound_of(4.0 * s_fr * F * (2.0 + rt_silent), 150.0 * s_fr * F),
+             ceiling=ceiling_of(150.0 * s_fr * F)),
+        dict(key="S", name="session_complex_decode", source=stream_src, replaces=stream_tpu + ":1803",
+             launches=counts["session_complex_decode"],
+             run=lambda: ss._launch_decode(rt_spec_ri, None, s_syn, N_FFT, HOP),
+             plain=lambda: ss.session_complex_decode_reference(rt_spec, s_rt.inv_window, float(ov), N_FFT, HOP),
+             library=lambda: lib_synth(rt_spec),
+             bound=bound_of(8.0 * s_fr * F + s_out, s_fft + 2.0 * N_FFT * s_fr),
+             ceiling=ceiling_of(syn_flops(t_dec, r_dec))),
+    ]
+    log(f"  RT-PGHI recurrence: {100 * rt_silent:.1f}% of the bins silent (angles read there)")
     kernels = []
     for s in specs:
         # turns: plain, kernel, kernel, plain -- the kernel's time is the

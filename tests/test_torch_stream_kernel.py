@@ -124,8 +124,8 @@ def test_p_random_decode_vs_pallas_oracle_and_generic(setup):
 
 def test_feature_chain_random_roundtrip_composes_r_and_p(setup):
     """``[OverlapAdd, RealtimeSTFT, Magnitude]`` in ``random`` mode: the
-    session route (encode, Magnitude forward and invert on the whole session,
-    decode) equals the generic scan with the same generator."""
+    session route (the magnitude encode, Magnitude forward and invert on the
+    whole session, P) equals the generic scan with the same generator."""
     x, _, pc, _, _ = setup
     chain = pc + PT.Magnitude(mode="unipolar", contrast="log1p", mel=False, n_fft=N_FFT, device="cpu")
     g1, g2 = torch.Generator().manual_seed(8), torch.Generator().manual_seed(8)
@@ -177,7 +177,21 @@ def test_gates_and_kernel_limits():
     assert not PK.kernel_covers("roundtrip", 8192, 1024)       # not even one chunk's frames fit
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PK._require("roundtrip", 8192, 1024)
+    # the RT-PGHI sessions (N, Q) and the complex decode (S) share the
+    # structural gate; the recurrence holds at most 4096 bins in one block
+    assert PK.fused_pghi_roundtrip_available(pc, CHUNK) and not PK.fused_pghi_roundtrip_available(pc, 1000)
+    assert PK.fused_pghi_invert_available(pc, 8) and PK.fused_complex_invert_available(pc, 8)
+    assert PK.kernel_covers("recurrence", 4096, 1024) and not PK.kernel_covers("recurrence", 8192, 2048)
+    with pytest.raises(NotImplementedError, match="4096 bins"):
+        PK._require("recurrence", 8192, 2048)
+    assert PK._require("recurrence", 1024, 256) is None
+    # the magnitude encode takes R's block, S takes P's
+    assert PK._require("encode", 1024, 256) == 40 and PK._require("decode", 1024, 256) == 40
     # nothing counts a launch on the CPU
     PK.reset_launches()
     PK.make_fused_roundtrip(pc, CHUNK)(torch.zeros(2, 3000))
+    PK.make_fused_pghi_roundtrip(pc, CHUNK)(torch.zeros(2, 3000))
+    PK.make_fused_pghi_invert(pc, 8)(torch.zeros(2, 20, 257))
+    PK.make_fused_magnitude_session(pc, CHUNK)(torch.zeros(2, 3000))
     assert all(v == 0 for v in PK.launches.values())
+    assert {"session_magnitude", "rt_pghi_phases", "session_complex_decode"} <= set(PK.launches)

@@ -119,13 +119,17 @@ def test_init_state_shapes_per_mode():
         assert {k: tuple(v.shape) for k, v in ps[0].items()} == {k: v.shape for k, v in js[0].items()}
         assert all(v.abs().max() == 0 for v in ps[0].values())
     assert PT.Mono(device="cpu").init_state((3,)) is None
-    for mode in ("pghi", "pghi_gl", "sinebank"):
+    # pghi: the RT-PGHI history, as in the JAX package
+    js, ps = jc[1].init_state((3,), mode="pghi"), pc[1].init_state((3,), mode="pghi")
+    assert {k: tuple(v.shape) for k, v in ps.items()} == {k: v.shape for k, v in js.items()}
+    assert set(ps) == {"mag_buffer", "phase_buffer"}
+    for mode in ("pghi_gl", "sinebank"):
         assert jc[1].init_state((3,), mode=mode)  # the JAX package allocates these carries
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
             pc[1].init_state((3,), mode=mode)
-    # the DGT's default mode is pghi: its carry comes with the next slice
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.RealtimeDGT(n_fft=512, hop_length=128, device="cpu").init_state((1,))
+    # the DGT's default mode is pghi: it streams
+    st = PT.RealtimeDGT(n_fft=512, hop_length=128, device="cpu").init_state((1,))
+    assert {k: tuple(v.shape) for k, v in st.items()} == {"mag_buffer": (1, 2, 257), "phase_buffer": (1, 257)}
 
 
 @pytest.mark.parametrize("kind", ["stft", "dgt"])
@@ -218,7 +222,9 @@ def test_streaming_unity_gain_after_the_delay(kind):
     snr = 10 * np.log10(np.sum(x[:n] ** 2) / np.sum(err ** 2))
     assert snr > 60, snr
     outs = pc[1].test_inversion(torch.as_tensor(x))
-    assert set(outs) == {"direct", "keep_input", "random"}
+    phaseless = {"keep_input", "random", "pghi"} | ({"pghi_exact"} if kind == "dgt" else set())
+    assert set(outs) == {"direct"} | phaseless
+    assert all(outs[m].shape == outs["direct"].shape and torch.isfinite(outs[m]).all() for m in phaseless)
     assert rel(t2n(outs["direct"])[d: d + n], x[:n]) <= 1e-4
     assert rel(t2n(outs["keep_input"])[d: d + n], x[:n]) <= 1e-4
 
@@ -275,6 +281,13 @@ def test_dispatch_contract():
         assert PS.plan_roundtrip(pc, shape, CHUNK, "random", device=dev) == ("random" if card else "generic")
         assert PS.plan_roundtrip(three, shape, CHUNK, "random", device=dev) == ("random" if card else "generic")
         assert PS.plan_invert(pc, (4, 40, 257), 8, "random", device=dev) == ("random" if card else "generic")
+        # RT-PGHI (N, Q) and the complex decode (S)
+        assert PS.plan_roundtrip(pc, shape, CHUNK, "pghi", device=dev) == ("pghi" if card else "generic")
+        assert PS.plan_roundtrip(three, shape, CHUNK, "pghi", device=dev) == ("pghi" if card else "generic")
+        assert PS.plan_invert(pc, (4, 40, 257), 8, "pghi", device=dev) == ("pghi" if card else "generic")
+        assert PS.plan_invert(pc, (4, 40, 257), 8, None, y_is_complex=True, device=dev) == (
+            "complex" if card else "generic")
+        assert PS.plan_invert(pc, (4, 40, 257), 8, None, y_is_complex=True, backend="fused", device=dev) == "complex"
         assert PS.plan_forward(pc, shape, CHUNK, backend="fused", device=dev) == "fused"
         assert PS.plan_roundtrip(pc, shape, CHUNK, backend="fused", device=dev) == "complex"
         for b in ("auto", "fused", "generic"):
@@ -292,11 +305,10 @@ def test_dispatch_contract():
                 assert PS.plan_roundtrip(three, shape, CHUNK, backend=b, device=dev) == "generic"
         # not ported yet: the card raises, the CPU runs the chunk scan under auto
         for call in (
-            lambda b: PS.plan_roundtrip(pc, shape, CHUNK, "pghi", backend=b, device=dev),
             lambda b: PS.plan_roundtrip(pc, shape, CHUNK, "pghi_gl", backend=b, device=dev),
             lambda b: PS.plan_roundtrip(pc, shape, CHUNK, "sinebank", backend=b, device=dev),
-            lambda b: PS.plan_invert(pc, (4, 40, 257), 8, None, y_is_complex=True, backend=b, device=dev),
-            lambda b: PS.plan_invert(pc, (4, 40, 257), 8, "pghi", backend=b, device=dev),
+            lambda b: PS.plan_invert(pc, (4, 40, 257), 8, "pghi_gl", backend=b, device=dev),
+            lambda b: PS.plan_invert(pc, (4, 40, 257), 8, "sinebank", backend=b, device=dev),
         ):
             assert call("generic") == "generic"
             with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
@@ -323,7 +335,7 @@ def test_dispatch_contract():
 def test_unported_streaming_modes_raise_naming_roadmap():
     _, pc = chains(512, 128)
     mag = torch.rand(2, 8, 257)
-    for mode in ("pghi", "pghi_gl", "sinebank"):
+    for mode in ("pghi_gl", "sinebank"):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
             pc[1].invert(mag, inversion_mode=mode)
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
