@@ -118,7 +118,9 @@ def load_jax_stream_state(
     ``init_state`` / ``scan_forward`` return it: a mapping of leaf name to
     array (``input_buffer`` / ``output_buffer`` of OverlapAdd; the carry of a
     ``Realtime*`` transform: nothing, or the RT-PGHI history ``mag_buffer
-    (..., 2, F)`` / ``phase_buffer (..., F)`` of a ``pghi`` session) or
+    (..., 2, F)`` / ``phase_buffer (..., F)`` of a ``pghi`` session, with a
+    ``pghi_gl`` session's pinned context ``gl_mag`` / ``gl_phase (...,
+    gl_context, F)`` and pending magnitudes ``la_mag (..., lookahead, F)``) or
     ``None`` for a stateless child.  A ``Realtime*`` entry's keys say its
     session's mode.  Arrays land on the chain's device as float32.  Raises
     when the number of entries, the keys, the trailing (non-batch) shapes or
@@ -140,7 +142,7 @@ def load_jax_stream_state(
         arrays = {k: np.asarray(v) for k, v in entry.items()}
         mode = None
         if isinstance(child, RealtimeSTFT):
-            mode = "pghi" if "mag_buffer" in arrays else "random"
+            mode = "pghi_gl" if "gl_mag" in arrays else "pghi" if "mag_buffer" in arrays else "random"
         template = child.init_state((), mode=mode)
         if template is None or set(template) != set(arrays):
             raise ValueError(

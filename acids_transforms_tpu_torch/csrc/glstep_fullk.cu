@@ -44,7 +44,11 @@
 // min(32, R - overlap) are chosen by the wrapper so that both phases fit
 // shared memory (R = 32 and 28 frames at n_fft 1024, hop 256; 15 and 7 at
 // 2048 / 256; 7 and 3 at 4096 / 1024).  An R that is no multiple of 8 leaves
-// the synthesis's last rows idle (synth_ola.cuh).
+// the synthesis's last rows idle (synth_ola.cuh).  Where not even overlap + 2
+// chunks' whole [re | im] rows fit (n_fft 4096 at overlap 8, n_fft 8192), the
+// rows are built and multiplied in slabs of Ks contraction columns, each
+// slab's product added to the sample buffer: R = 32 chunks in slabs of 832
+// columns at 4096 / 512, R = 15 in slabs of 1056 at 8192 / 2048.
 //
 // Arithmetic is fp32 FMA with fp32 accumulation: no tensor cores yet.  What
 // keeps it from that ceiling: one block of 8 warps per SM (the [re | im]
@@ -73,11 +77,14 @@ struct GlFullkArgs {
     float* rre;
     float* rim;
     int T, F, hop, overlap, Kp, rows, tile_t, n_tiles;
+    int Ks;             // synthesis slab: contraction columns of [re | im] held at a time
     float mom;
 };
 
-__host__ __device__ inline size_t gl_fullk_smem_floats(int rows, int overlap, int hop, int Kp) {
-    size_t syn = (size_t)(rows + overlap - 1) * Kp + (size_t)kSynKC * kSynCols;
+// Ks = Kp holds the frames' whole [re | im] rows; a narrower slab bounds
+// shared memory for the shapes where they do not fit.
+__host__ __device__ inline size_t gl_fullk_smem_floats(int rows, int overlap, int hop, int Ks) {
+    size_t syn = (size_t)(rows + overlap - 1) * Ks + (size_t)kSynKC * kSynCols;
     size_t ana = (size_t)ana_work_floats();
     return (size_t)rows * hop + (syn > ana ? syn : ana);
 }
@@ -89,9 +96,10 @@ __global__ void __launch_bounds__(kThreads) gl_fullk_kernel(GlFullkArgs a) {
     const int R = a.rows;  // hop chunks of samples a block computes, <= 8 kRPT
     const int tid = threadIdx.x;
     const int T = a.T, F = a.F, hop = a.hop, ov = a.overlap, Kp = a.Kp, m = a.overlap - 1;
+    const int Ks = a.Ks;
     float* samples = smem;                      // [R][hop]
-    float* S = samples + (size_t)R * hop;       // [R + m][Kp] frames' [re | im]
-    float* Bst = S + (size_t)(R + m) * Kp;      // [kSynKC][kSynCols]
+    float* S = samples + (size_t)R * hop;       // [R + m][Ks] a slab of the frames' [re | im]
+    float* Bst = S + (size_t)(R + m) * Ks;      // [kSynKC][kSynCols]
     AnaWork w = carve_ana(S);                   // the analysis reuses that area
 
     const long long blk = blockIdx.x;
@@ -100,48 +108,57 @@ __global__ void __launch_bounds__(kThreads) gl_fullk_kernel(GlFullkArgs a) {
     const int c0 = t0 - 1;  // chunk of sample buffer row 0
     const size_t bofs = (size_t)b * T * F;
 
-    // ---- synthesis: frames c0 - m .. c0 + R - 1 -> samples of chunks c0 .. c0 + R - 1
-    for (int q = 0; q < R + m; ++q) {
-        const int f = c0 - m + q;
-        float* row = S + (size_t)q * Kp;
-        if (f >= 0 && f < T) {
-            const size_t o = bofs + (size_t)f * F;
-            for (int k = tid; k < F; k += kThreads) {
-                const float mg = __ldg(a.mag + o + k);
-                row[k] = mg * __ldg(a.are + o + k);
-                row[F + k] = mg * __ldg(a.aim + o + k);
+    // ---- synthesis: frames c0 - m .. c0 + R - 1 -> samples of chunks c0 .. c0 + R - 1,
+    // one slab of Ks contraction columns (column k2 < F: mag * are, < 2F: mag * aim) at a time
+    for (int s0 = 0; s0 < Kp; s0 += Ks) {
+        const int kw = min(Ks, Kp - s0);
+        if (s0 > 0) __syncthreads();  // the previous slab's product has read S
+        for (int q = 0; q < R + m; ++q) {
+            const int f = c0 - m + q;
+            float* row = S + (size_t)q * kw;
+            if (f >= 0 && f < T) {
+                const size_t o = bofs + (size_t)f * F;
+                for (int c = tid; c < kw; c += kThreads) {
+                    const int k2 = s0 + c;
+                    float v = 0.0f;
+                    if (k2 < F) {
+                        v = __ldg(a.mag + o + k2) * __ldg(a.are + o + k2);
+                    } else if (k2 < 2 * F) {
+                        v = __ldg(a.mag + o + k2 - F) * __ldg(a.aim + o + k2 - F);
+                    }
+                    row[c] = v;
+                }
+            } else {
+                for (int c = tid; c < kw; c += kThreads) row[c] = 0.0f;
             }
-            for (int k = 2 * F + tid; k < Kp; k += kThreads) row[k] = 0.0f;
-        } else {
-            for (int k = tid; k < Kp; k += kThreads) row[k] = 0.0f;
         }
+        // synth_ola_tile starts with a barrier before it reads S
+        synth_ola_tile<kRPT>(S, Bst, a.syn, Kp, hop, ov, 0, R, samples, s0, kw, s0 > 0);
     }
-    // synth_ola_tile starts with a barrier before it reads S
-    synth_ola_tile<kRPT>(S, Bst, a.syn, Kp, hop, ov, 0, R, samples);
     __syncthreads();
     for (int i = tid; i < R * hop; i += kThreads) {
         const int c = c0 + i / hop;  // chunk of the un-trimmed signal
         if (c >= 0 && c < T + m) samples[i] /= __ldg(a.env + (size_t)c * hop + (i - (i / hop) * hop));
     }
     __syncthreads();
-    // reflect padding of the trimmed signal u[half, half + L): the head
-    // takes u[n_fft - j], the tail u[2 (L + half - 1) - j]; the sources lie
-    // strictly inside the trimmed signal, so the pass can run in place
+    // reflect padding of the trimmed signal u[half, half + L): padded sample
+    // j takes u[half + x], x the reflection of j - half with period 2 (L - 1)
+    // (the head u[n_fft - j] and the tail u[2 (L + half - 1) - j] when one
+    // reflection covers the pad; a clip of L <= half samples reflects again,
+    // as the eager loop's padding does); the sources lie inside the trimmed
+    // signal, so the pass can run in place
     {
         const long long half = (long long)ov * hop / 2;
         const long long L = (long long)(T - 1) * hop;
+        const long long period = 2 * (L - 1);
         const long long base = (long long)c0 * hop;
         for (int i = tid; i < R * hop; i += kThreads) {
             const long long j = base + i;
-            long long src;
-            if (j >= 0 && j < half) {
-                src = (long long)ov * hop - j;
-            } else if (j >= L + half) {
-                src = 2 * (L + half - 1) - j;
-            } else {
-                continue;
-            }
-            src -= base;
+            if (j < 0 || (j >= half && j < L + half)) continue;
+            long long x = (j - half) % period;
+            if (x < 0) x += period;
+            if (x >= L) x = period - x;
+            const long long src = half + x - base;
             if (src >= 0 && src < (long long)R * hop) samples[i] = samples[src];
         }
     }
@@ -182,28 +199,28 @@ static cudaError_t gl_fullk_allow_smem(K kernel, size_t bytes) {
 
 extern "C" {
 
-// Shared memory of one block computing `rows` chunks (overlap + 2 <= rows <= 32).
-long long att_gl_fullk_smem_bytes(int rows, int overlap, int hop, int Kp) {
-    return (long long)(att::gl_fullk_smem_floats(rows, overlap, hop, Kp) * sizeof(float));
+// Shared memory of one block computing `rows` chunks (overlap + 2 <= rows <=
+// 32) with synthesis slabs of Ks columns.
+long long att_gl_fullk_smem_bytes(int rows, int overlap, int hop, int Ks) {
+    return (long long)(att::gl_fullk_smem_floats(rows, overlap, hop, Ks) * sizeof(float));
 }
 
 // Kernel J.  Spectrogram arrays (B, T, F) float32 contiguous, outputs not
 // aliasing inputs; env (T + overlap - 1, hop); syn (overlap, Kp, hop) with Kp
 // a multiple of 32, Kp >= 2F; wc / ws (overlap * hop, F).  rows chunks per
 // block (overlap + 2 <= rows <= 32), tile_t <= min(32, rows - overlap)
-// frames; hop a multiple
-// of 32; (T - 1) hop > overlap * hop / 2 (one reflection covers the pad).
-// Returns a cudaError_t.
+// frames; synthesis slabs of Ks columns, a multiple of 32 up to Kp; hop a
+// multiple of 32; T >= 2.  A clip whose reflection sources lie outside one
+// block's chunks (the wrapper checks) is not covered.  Returns a cudaError_t.
 int att_gl_fullk_step(const float* mag, const float* are, const float* aim, const float* tre,
                       const float* tim, const float* env, const float* syn, const float* wc,
                       const float* ws, long long B, int T, int F, int hop, int overlap, int Kp,
-                      int rows, int tile_t, float mom, float* nare, float* naim, float* rre,
-                      float* rim, void* stream) {
+                      int rows, int tile_t, int Ks, float mom, float* nare, float* naim,
+                      float* rre, float* rim, void* stream) {
     using namespace att;
-    if (B < 1 || T < 1 || overlap < 2 || hop % kKC != 0 || Kp % kSynKC != 0 || Kp < 2 * F ||
+    if (B < 1 || T < 2 || overlap < 2 || hop % kKC != 0 || Kp % kSynKC != 0 || Kp < 2 * F ||
         tile_t < 1 || tile_t > kRowGroup || tile_t + overlap > rows ||
-        (long long)(T - 1) * hop <= (long long)overlap * hop / 2 ||
-        rows < overlap + 2 || rows > 32) {
+        Ks < kSynKC || Ks > Kp || Ks % kSynKC != 0 || rows < overlap + 2 || rows > 32) {
         return (int)cudaErrorInvalidValue;
     }
     GlFullkArgs a;
@@ -212,8 +229,9 @@ int att_gl_fullk_step(const float* mag, const float* are, const float* aim, cons
     a.nare = nare; a.naim = naim; a.rre = rre; a.rim = rim;
     a.T = T; a.F = F; a.hop = hop; a.overlap = overlap; a.Kp = Kp; a.rows = rows; a.tile_t = tile_t;
     a.n_tiles = (T + tile_t - 1) / tile_t;
+    a.Ks = Ks;
     a.mom = mom;
-    const size_t smem = gl_fullk_smem_floats(rows, overlap, hop, Kp) * sizeof(float);
+    const size_t smem = gl_fullk_smem_floats(rows, overlap, hop, Ks) * sizeof(float);
     dim3 grid((unsigned)(B * a.n_tiles));
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;

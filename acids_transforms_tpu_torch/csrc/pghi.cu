@@ -57,7 +57,10 @@
 // atan2(m sin phi, m cos phi) of the last frame, which is what the chunked
 // loop carries (angle of the committed spectrum): the phases then stay within
 // one chunk's growth (16 frames x 2 pi hop k / n_fft), where a float32 ulp is
-// small, instead of growing over the whole session.
+// small, instead of growing over the whole session.  Seeded, the kernel
+// starts from a carried history instead of two zero frames: the pghi_gl
+// sessions (stream_step.cu) run it one chunk at a time, since each chunk's
+// seed starts from the previous chunk's polished phases.
 //
 // Synthesis: see synth_ola.cuh.  A block computes mag * (cos, sin)(phase) of
 // its R + overlap - 1 frames once into shared memory (sincosf of arguments up
@@ -340,9 +343,11 @@ __global__ void __launch_bounds__(1024) pghi_phases_kernel(PghiArgs p) {
 }
 
 struct RtPghiArgs {
-    const float* mag;     // (B, T, F), T a multiple of T_c
-    const float* angles;  // (B, Ta, F) phases of the silent bins, Ta >= T
-    float* phases;        // (B, T, F) out
+    const float* mag;         // (B, T, F), T a multiple of T_c
+    const float* angles;      // (B, Ta, F) phases of the silent bins, Ta >= T
+    const float* prev_mag;    // (B, 2, F) carried magnitude frames, or null: two zero frames
+    const float* prev_phase;  // (B, F) carried phase, or null: zeros
+    float* phases;            // (B, T, F) out
     int T, Ta, F, T_c;
     float tol;            // threshold relative to the chunk's maximum
     float fmul;           // gamma / (hop n_fft)
@@ -394,6 +399,35 @@ __global__ void __launch_bounds__(1024) rt_pghi_phases_kernel(RtPghiArgs p) {
         y1[j] = y_zero;
         y2[j] = y_zero;
         ts1[j] = __fmul_rn(p.carrier, (float)(tid * kBPT + j));
+    }
+    if (p.prev_mag != nullptr) {
+        // seeded: the session's carried frames (the chunked loop's
+        // mag_buffer / phase_buffer) take the place of the zero frames; the
+        // previous frame's time step comes from its logarithms as any frame's
+        const float* pm = p.prev_mag + (size_t)b * 2 * F;
+        const float* pp = p.prev_phase + (size_t)b * F;
+#pragma unroll
+        for (int j = 0; j < kBPT; ++j) {
+            const int k = tid * kBPT + j;
+            if (k < F) {
+                m1[j] = __ldg(pm + F + k);
+                y1[j] = logf(fmaxf(m1[j], kPghiEps));
+                y2[j] = logf(fmaxf(__ldg(pm + k), kPghiEps));
+                phi[j] = __ldg(pp + k);
+                sYc[k] = y1[j];
+            }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < kBPT; ++j) {
+            const int k = tid * kBPT + j;
+            if (k < F) {
+                const int kd = k > 0 ? k - 1 : 0, ku = k < F - 1 ? k + 1 : F - 1;
+                ts1[j] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(sYc[ku], sYc[kd]), 0.5f), p.inv_fmul),
+                                   __fmul_rn(p.carrier, (float)k));
+            }
+        }
+        __syncthreads();  // the first step writes sYc
     }
     float abstol = kPghiEps;
 
@@ -636,13 +670,17 @@ long long att_rt_pghi_smem_bytes(int n_pad) {
 }
 
 // mag, phases: (B, T, F) float32 with T a multiple of T_c; angles (B, Ta, F),
-// Ta >= T.  bpt bins per thread (1, 2 or 4) with ceil(F / (32 bpt)) warps per
-// block, at most 32; one block per session.  Returns a cudaError_t.
-int att_rt_pghi_phases(const float* mag, const float* angles, float* phases, long long B, int T,
-                       int Ta, int F, int T_c, float tol, float fmul, float inv_fmul,
-                       float carrier, int bpt, void* stream) {
+// Ta >= T.  prev_mag (B, 2, F) and prev_phase (B, F) seed the session with a
+// carried history (both or neither; null: a fresh session).  bpt bins per
+// thread (1, 2 or 4) with ceil(F / (32 bpt)) warps per block, at most 32; one
+// block per session.  Returns a cudaError_t.
+int att_rt_pghi_phases(const float* mag, const float* angles, const float* prev_mag,
+                       const float* prev_phase, float* phases, long long B, int T, int Ta, int F,
+                       int T_c, float tol, float fmul, float inv_fmul, float carrier, int bpt,
+                       void* stream) {
     using namespace att;
-    if (B < 1 || T < 1 || F < 2 || T_c < 1 || T % T_c != 0 || Ta < T) {
+    if (B < 1 || T < 1 || F < 2 || T_c < 1 || T % T_c != 0 || Ta < T ||
+        (prev_mag == nullptr) != (prev_phase == nullptr)) {
         return (int)cudaErrorInvalidValue;
     }
     const int n_warps = (F + 32 * bpt - 1) / (32 * bpt);
@@ -650,6 +688,8 @@ int att_rt_pghi_phases(const float* mag, const float* angles, float* phases, lon
     RtPghiArgs a;
     a.mag = mag;
     a.angles = angles;
+    a.prev_mag = prev_mag;
+    a.prev_phase = prev_phase;
     a.phases = phases;
     a.T = T;
     a.Ta = Ta;

@@ -11,6 +11,10 @@
 //                                       also the synthesis of the RT-PGHI sessions N and Q, with
 //                                       the recurrence's phases as its angles)
 //   session_decode_kernel<., true>   <- _session_complex_invert_kernel (make_fused_complex_invert)
+//   gl_project_analysis_kernel       <- the projection of _session_pghi_gl_kernel (O), its
+//                                       analysis and atan2; with session_decode_kernel<., false>
+//                                       as its synthesis and pghi.cu's recurrence (seeded) as
+//                                       its seed: make_fused_pghi_gl_roundtrip / _invert
 //
 // What they compute.  A fresh session's frames are the contiguous slices
 // [t hop, t hop + n_fft) of the row-padded signal: (overlap - 1) hop zero
@@ -55,6 +59,18 @@
 // read from the signal with bounds checks (the zero ring and tail are never
 // materialized).  Arithmetic is fp32 FMA with fp32 accumulation; sincosf is
 // the full-range function (no --use_fast_math).
+//
+// O (the pghi_gl sessions) is serial across chunks: chunk c + 1's seed and
+// pinned context are chunk c's polished phases, so no whole-session launch
+// can run it.  Its wrapper walks the chunks on the host, each chunk over the
+// whole batch of sessions: one seeded recurrence launch (pghi.cu), then per
+// Griffin-Lim iteration two launches over the extended grid of gl_context +
+// T_c + lookahead frames, P's synthesis into the grid's overlap-add signal
+// (blocks of 8 hop chunks, so that a session fills several SMs) and
+// gl_project_analysis_kernel (blocks of one session and one 128-bin tile); the
+// commit and the carries are a few small tensor operations, and P's synthesis
+// of every committed frame ends the session.  The phases of the grid stay in
+// one device array that the analysis updates in place.
 #include <math.h>
 
 #include "dft_common.cuh"
@@ -100,13 +116,14 @@ __device__ void load_session_samples(const float* __restrict__ x_row, long long 
 
 // Full-K windowed DFT of n_rows <= kMaxRows frames held in shared memory:
 // frame r is xs[r hop, r hop + Kn) (samples past n_fft meet zero basis rows).
-// emit(r, k, re, im) for every r < n_rows, k < F.  Starts and ends with a
-// barrier, so xs may be written right before and the emitted values read
+// emit(r, k, re, im) for every r < n_rows and k < F of the 128-bin column
+// tiles ct_begin .. ct_end - 1 (all of them by default).  Starts and ends with
+// a barrier, so xs may be written right before and the emitted values read
 // right after.
 template <typename Emit>
 __device__ void fullk_analysis(const float* xs, int n_rows, int hop, int Kn, int F,
                                const float* __restrict__ wc, const float* __restrict__ ws,
-                               float* stage, Emit emit) {
+                               float* stage, Emit emit, int ct_begin = 0, int ct_end = -1) {
     const int tid = threadIdx.x;
     const int tx = tid & 31;
     const int ty = tid >> 5;
@@ -126,7 +143,8 @@ __device__ void fullk_analysis(const float* xs, int n_rows, int hop, int Kn, int
     const int stage_c = tid % kColTile;
     const int stage_r = tid / kColTile;
     const int n_ct = (F + kColTile - 1) / kColTile;
-    for (int ct = 0; ct < n_ct; ++ct) {
+    const int ct_stop = ct_end < 0 ? n_ct : min(ct_end, n_ct);
+    for (int ct = ct_begin; ct < ct_stop; ++ct) {
         const int k_stage = ct * kColTile + stage_c;
         const bool stage_ok = k_stage < F;
         const size_t col = stage_ok ? (size_t)k_stage : 0;
@@ -353,6 +371,41 @@ __global__ void __launch_bounds__(kThreads) session_decode_kernel(SessionArgs a)
     synth_ola_tile<kRPT, kSumFold>(S, stage, a.syn, Kp, a.hop, a.overlap, j0, j_end, a.out + (size_t)b * T * a.hop);
 }
 
+// O's projection, analysis half (the synthesis half is P's kernel with the
+// basis divided by overlap instead of the OverlapAdd gain).  y (B, Ly) holds
+// each session's overlap-add of its extended grid's frames; grid frame f is
+// y[f hop, f hop + n_fft).  A block owns one session and one 128-bin column
+// tile of the frames f0 .. Tx - 1 (f0 = gl_context: the pinned rows are never
+// recomputed) and writes phase[b, f, k] = atan2(im, re) of every such frame
+// outside [keep_lo, keep_hi), the frozen rows, which keep their value.
+struct GlProjectArgs {
+    const float* y;       // (B, Ly)
+    const float* wc;      // (Kn, F) window-folded analysis basis, cos; zero rows past n_fft
+    const float* ws;      //                                      -sin
+    float* phase;         // (B, Tp, F), rows f0 .. Tx - 1 updated in place
+    long long Ly;
+    int Tp, Tx, f0, keep_lo, keep_hi, F, hop, Kn, n_ct;
+};
+
+__global__ void __launch_bounds__(kThreads) gl_project_analysis_kernel(GlProjectArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    const long long b = blockIdx.x / a.n_ct;
+    const int ct = (int)(blockIdx.x - b * a.n_ct);
+    const int n_rows = a.Tx - a.f0;
+    float* xs = smem;
+    float* stage = xs + (size_t)(n_rows - 1) * a.hop + a.Kn;  // 16-byte aligned: hop % 4 == 0
+    load_session_samples(a.y + (size_t)b * a.Ly, a.Ly, (long long)a.f0 * a.hop, 0,
+                         (n_rows - 1) * a.hop + a.Kn, xs);
+    const int F = a.F;
+    float* out = a.phase + ((size_t)b * a.Tp + a.f0) * F;
+    const int lo = a.keep_lo - a.f0, hi = a.keep_hi - a.f0;
+    fullk_analysis(xs, n_rows, a.hop, a.Kn, F, a.wc, a.ws, stage,
+                   [&](int r, int k, float re, float im) {
+                       if (r < lo || r >= hi) out[(size_t)r * F + k] = atan2f(im, re);
+                   },
+                   ct, ct + 1);
+}
+
 template <typename K>
 static cudaError_t session_allow_smem(K kernel, size_t bytes) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -489,6 +542,30 @@ int att_session_decode(const float* mag, const float* angles, const float* syn, 
     else ATT_LAUNCH_DEC2(1);
 #undef ATT_LAUNCH_DEC2
 #undef ATT_LAUNCH_DEC
+    return (int)cudaGetLastError();
+}
+
+// O's projection analysis (see gl_project_analysis_kernel).  y (B, Ly) float32;
+// wc / ws as for R; phase (B, Tp, F), rows f0 .. Tx - 1 outside [keep_lo,
+// keep_hi) written.  Tx - f0 <= 40 frames; hop a multiple of 4.  Returns a
+// cudaError_t.
+int att_gl_project_analysis(const float* y, const float* wc, const float* ws, float* phase,
+                            long long B, long long Ly, int Tp, int Tx, int f0, int keep_lo,
+                            int keep_hi, int F, int hop, int Kn, void* stream) {
+    using namespace att;
+    if (B < 1 || F < 2 || hop % 4 != 0 || Kn % kKC != 0 || f0 < 0 || Tx - f0 < 1 ||
+        Tx - f0 > kMaxRows || Tx > Tp) {
+        return (int)cudaErrorInvalidValue;
+    }
+    GlProjectArgs a = {};
+    a.y = y; a.wc = wc; a.ws = ws; a.phase = phase;
+    a.Ly = Ly; a.Tp = Tp; a.Tx = Tx; a.f0 = f0; a.keep_lo = keep_lo; a.keep_hi = keep_hi;
+    a.F = F; a.hop = hop; a.Kn = Kn;
+    a.n_ct = (F + kColTile - 1) / kColTile;
+    const size_t smem = encode_smem_floats(Tx - f0, hop, Kn) * sizeof(float);
+    cudaError_t err = session_allow_smem(gl_project_analysis_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    gl_project_analysis_kernel<<<(unsigned)(B * a.n_ct), kThreads, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }
 

@@ -52,14 +52,22 @@ __device__ __forceinline__ void fma8(float (&s)[8], float av, const float4& b0, 
 // n_chunks - j0 < R.  Bst: kSynKC * kSynCols floats of shared memory.
 // basis: (overlap, Kp, hop) in device memory.  out_row: the clip's signal,
 // n_chunks * hop floats; chunks [j0, j0 + R) below n_chunks are written.
+//
+// A slab (k_len > 0): S holds only the contraction columns k_begin ..
+// k_begin + k_len - 1 of each frame's row (row stride k_len, a multiple of
+// kSynKC), the product runs over those, and with `accumulate` the sums are
+// added to out_row instead of stored: a caller whose frames' rows do not fit
+// shared memory whole runs the slabs in turn.
 template <int kRPT, int kFold = 0>
 __device__ void synth_ola_tile(const float* S, float* Bst, const float* __restrict__ basis,
                                int Kp, int hop, int overlap, int j0, int n_chunks,
-                               float* __restrict__ out_row) {
+                               float* __restrict__ out_row, int k_begin = 0, int k_len = 0,
+                               bool accumulate = false) {
     const int tid = threadIdx.x;
     const int tx = tid & 31;
     const int ty = tid >> 5;
     constexpr int kVec = kSynKC * kSynCols / 4 / kSynThreads;  // float4 a thread stages
+    const int Ks = k_len > 0 ? k_len : Kp;  // contraction columns of S per piece, its row stride
     // a thread's output chunks past the block's last one (n_chunks - j0) read
     // that chunk's frames instead: their sums are never stored, and S need
     // hold no rows beyond the last chunk's
@@ -67,7 +75,7 @@ __device__ void synth_ola_tile(const float* S, float* Bst, const float* __restri
     {
         const int last = max(0, min(8 * kRPT, n_chunks - j0) - 1);
 #pragma unroll
-        for (int r = 0; r < kRPT; ++r) rofs[r] = min(ty * kRPT + r, last) * Kp;
+        for (int r = 0; r < kRPT; ++r) rofs[r] = min(ty * kRPT + r, last) * Ks;
     }
     for (int c0 = 0; c0 < hop; c0 += kSynCols) {
         float acc[kRPT][8];
@@ -83,10 +91,10 @@ __device__ void synth_ola_tile(const float* S, float* Bst, const float* __restri
             for (int q = 0; q < 8; ++q) part[r][q] = 0.0f;
         }
         float4 stage[kVec];
-        const int n_steps = overlap * (Kp / kSynKC);
+        const int n_steps = overlap * (Ks / kSynKC);
         auto fetch = [&](int step) {
-            const int i = step / (Kp / kSynKC);
-            const int k0 = (step - i * (Kp / kSynKC)) * kSynKC;
+            const int i = step / (Ks / kSynKC);
+            const int k0 = (step - i * (Ks / kSynKC)) * kSynKC;
 #pragma unroll
             for (int v = 0; v < kVec; ++v) {
                 const int idx4 = tid + v * kSynThreads;
@@ -94,7 +102,7 @@ __device__ void synth_ola_tile(const float* S, float* Bst, const float* __restri
                 const int col = (idx4 - row * (kSynCols / 4)) * 4;
                 if (c0 + col < hop) {
                     stage[v] = __ldg(reinterpret_cast<const float4*>(
-                        basis + ((size_t)i * Kp + k0 + row) * hop + c0 + col));
+                        basis + ((size_t)i * Kp + k_begin + k0 + row) * hop + c0 + col));
                 } else {
                     stage[v] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
                 }
@@ -102,8 +110,8 @@ __device__ void synth_ola_tile(const float* S, float* Bst, const float* __restri
         };
         fetch(0);
         for (int step = 0; step < n_steps; ++step) {
-            const int i = step / (Kp / kSynKC);
-            const int k0 = (step - i * (Kp / kSynKC)) * kSynKC;
+            const int i = step / (Ks / kSynKC);
+            const int k0 = (step - i * (Ks / kSynKC)) * kSynKC;
             __syncthreads();  // previous chunk consumed
 #pragma unroll
             for (int v = 0; v < kVec; ++v) {
@@ -112,7 +120,7 @@ __device__ void synth_ola_tile(const float* S, float* Bst, const float* __restri
             __syncthreads();
             if (step + 1 < n_steps) fetch(step + 1);
             // output chunk ty * kRPT + r reads frame row (..) + overlap - 1 - i
-            const float* Srow = S + (size_t)(overlap - 1 - i) * Kp + k0;
+            const float* Srow = S + (size_t)(overlap - 1 - i) * Ks + k0;
 #pragma unroll 2
             for (int kk = 0; kk < kSynKC; kk += 4) {
                 float4 a[kRPT];
@@ -139,8 +147,8 @@ __device__ void synth_ola_tile(const float* S, float* Bst, const float* __restri
                 }
             }
             if constexpr (kFold > 0) {
-                const int kc = step - i * (Kp / kSynKC) + 1;  // chunks of this piece done
-                if (kc % kFold == 0 || kc == Kp / kSynKC) {
+                const int kc = step - i * (Ks / kSynKC) + 1;  // chunks of this piece done
+                if (kc % kFold == 0 || kc == Ks / kSynKC) {
 #pragma unroll
                     for (int r = 0; r < kRPT; ++r) {
 #pragma unroll
@@ -158,6 +166,19 @@ __device__ void synth_ola_tile(const float* S, float* Bst, const float* __restri
             if (j >= n_chunks) continue;
             float* dst = out_row + (size_t)j * hop + c0;
             const int ca = tx * 4, cb = kSynCols / 2 + tx * 4;
+            if (accumulate) {
+                if (c0 + ca < hop) {
+                    float4 v = *reinterpret_cast<float4*>(dst + ca);
+                    v.x += acc[r][0]; v.y += acc[r][1]; v.z += acc[r][2]; v.w += acc[r][3];
+                    *reinterpret_cast<float4*>(dst + ca) = v;
+                }
+                if (c0 + cb < hop) {
+                    float4 v = *reinterpret_cast<float4*>(dst + cb);
+                    v.x += acc[r][4]; v.y += acc[r][5]; v.z += acc[r][6]; v.w += acc[r][7];
+                    *reinterpret_cast<float4*>(dst + cb) = v;
+                }
+                continue;
+            }
             if (c0 + ca < hop) {
                 *reinterpret_cast<float4*>(dst + ca) =
                     make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);

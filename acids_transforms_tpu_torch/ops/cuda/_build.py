@@ -151,7 +151,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, p,                # mag, are, aim, tre, tim, env
         p, p, p,                         # syn, wc, ws
         ll, i, i, i, i, i,               # B, T, F, hop, overlap, Kp
-        i, i, f,                         # rows, tile_t, mom
+        i, i, i, f,                      # rows, tile_t, slab, mom
         p, p, p, p, p,                   # nare, naim, rre, rim, stream
     ]
     lib.att_gl_fullk_step.restype = i
@@ -165,7 +165,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.att_rt_pghi_smem_bytes.argtypes = [i]
     lib.att_rt_pghi_smem_bytes.restype = ll
     lib.att_rt_pghi_phases.argtypes = [
-        p, p, p,                         # mag, angles, phases
+        p, p, p, p, p,                   # mag, angles, prev_mag, prev_phase (or None), phases
         ll, i, i, i, i,                  # B, T, Ta, F, T_c
         f, f, f, f, i, p,                # tol, fmul, 1 / fmul, carrier, bpt, stream
     ]
@@ -198,6 +198,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         ll, i, i, i, i, i, i, i, p,      # B, T, Ta, F, hop, overlap, Kp, rows, stream
     ]
     lib.att_session_decode.restype = i
+    lib.att_gl_project_analysis.argtypes = [
+        p, p, p, p,                      # y, wc, ws, phase
+        ll, ll, i, i, i, i, i,           # B, Ly, Tp, Tx, f0, keep_lo, keep_hi
+        i, i, i, p,                      # F, hop, Kn, stream
+    ]
+    lib.att_gl_project_analysis.restype = i
 
 
 def load_library() -> ctypes.CDLL:

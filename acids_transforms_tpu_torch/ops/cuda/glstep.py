@@ -407,8 +407,9 @@ def gl_project(mag, ang_re, ang_im, n_fft, hop_length, taps, window):
 # --------------------------------------- kernel J: the full-K momentum step
 def _fullk_smem_bytes(rows: int, overlap: int, hop: int, k_padded: int) -> int:
     """Shared memory of one block of the full-K step, as ``csrc/glstep_fullk.cu``
-    lays it out: the block's samples, then the frames' ``[re | im]`` rows and
-    the staged synthesis basis, or the analysis work area where larger."""
+    lays it out: the block's samples, then the frames' ``[re | im]`` rows (or
+    a slab of ``k_padded`` of their columns) and the staged synthesis basis,
+    or the analysis work area where larger."""
     syn = (rows + overlap - 1) * k_padded + 32 * 256
     ana = 2 * 32 * 128 + 2 * 40 * 128 + 2 * 32 * 128 + 2 * 128
     return 4 * (rows * hop + max(syn, ana))
@@ -430,13 +431,45 @@ def _pick_fullk_rows(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
     return None
 
 
+def _pick_fullk_block(n_fft: int, hop: int) -> Optional[Tuple[int, int, int]]:
+    """``(rows, tile_t, slab)`` of the block the step launches: the block of
+    :func:`_pick_fullk_rows` with the frames' whole ``[re | im]`` rows
+    (``slab = Kp``) where one fits, else the most chunks (at most 32) whose
+    samples and analysis work area fit beside a synthesis slab of at least 256
+    contraction columns, the widest such slab (a multiple of 32); None when
+    not even ``overlap + 2`` chunks fit so."""
+    from .pghi_kernel import _k_padded
+
+    overlap = n_fft // hop
+    kp = _k_padded(n_fft // 2 + 1)
+    pick = _pick_fullk_rows(n_fft, hop)
+    if pick is not None:
+        return pick + (kp,)
+    for rows in range(32, overlap + 1, -1):
+        free = MAX_SMEM // 4 - rows * hop - 32 * 256
+        slab = min(kp, free // (rows + overlap - 1) // 32 * 32)
+        if slab >= 256 and _fullk_smem_bytes(rows, overlap, hop, slab) <= MAX_SMEM:
+            return rows, min(32, rows - overlap), slab
+    return None
+
+
+def _fullk_reflection_covered(T: int, n_fft: int, hop: int, rows: int, tile_t: int) -> bool:
+    """Whether every block finds its frames' reflected samples among its own
+    chunks: always where one reflection covers the pad (``(T - 1) hop >
+    n_fft / 2``); a shorter clip reflects again, from anywhere in the trimmed
+    signal, so one block must hold all its frames and that signal."""
+    L, half = (T - 1) * hop, n_fft // 2
+    if L > half:
+        return True
+    return T >= 2 and T <= tile_t and half + L <= (rows - 1) * hop
+
+
 def gl_fullk_available(n_fft: int, hop_length: int) -> bool:
     """Whether the full-K step's structure covers the shape (any window):
     ``hop | n_fft`` with 2 <= overlap <= 8 and hop a multiple of 32 (the
-    staged contraction chunk).  A shape inside this gate whose narrowest
-    block exceeds shared memory (n_fft 4096 at overlap 8, n_fft 8192) is not
-    silently sent elsewhere: the step factory raises ``NotImplementedError``
-    on a CUDA tensor."""
+    staged contraction chunk).  A shape inside this gate that the kernel's
+    block still cannot take is not silently sent elsewhere: the step factory
+    raises ``NotImplementedError`` on a CUDA tensor."""
     if n_fft % hop_length != 0 or n_fft % 2:
         return False
     return 2 <= n_fft // hop_length <= MAX_OVERLAP and hop_length % 32 == 0
@@ -519,23 +552,22 @@ def make_gl_momentum_step_fullk(
             "the CUDA full-K Griffin-Lim kernel does not cover n_fft=%d hop=%d "
             "(need hop | n_fft, 2 <= overlap <= 8 and hop %% 32 == 0)" % (n_fft, hop_length)
         )
-    pick = _pick_fullk_rows(n_fft, hop_length)
-    if (T - 1) * hop_length <= n_fft // 2:
-        raise NotImplementedError(
-            "the CUDA full-K Griffin-Lim kernel reflects the trimmed signal once, "
-            "which %d frames at n_fft=%d hop=%d are too few for; use fused=False"
-            % (T, n_fft, hop_length)
-        )
+    pick = _pick_fullk_block(n_fft, hop_length)
     if pick is None:
         raise NotImplementedError(
-            "the CUDA full-K Griffin-Lim kernel holds a block's frames and "
-            "samples in shared memory, which n_fft=%d hop=%d exceeds (ROADMAP "
-            "Queue 2, K9: n_fft 4096 at overlap 8, n_fft 8192); use fused=False"
-            % (n_fft, hop_length)
+            "the CUDA full-K Griffin-Lim kernel holds a block's samples and a slab "
+            "of its frames in shared memory, which n_fft=%d hop=%d exceeds (ROADMAP "
+            "Queue 2, K9); use fused=False" % (n_fft, hop_length)
+        )
+    rows, tile_t, slab = pick
+    if not _fullk_reflection_covered(T, n_fft, hop_length, rows, tile_t):
+        raise NotImplementedError(
+            "the CUDA full-K Griffin-Lim kernel reflects a short clip inside one block, "
+            "which %d frames at n_fft=%d hop=%d do not fit (ROADMAP Queue 2, K9); use "
+            "fused=False" % (T, n_fft, hop_length)
         )
     from .pghi_kernel import _synth_basis
 
-    rows, tile_t = pick
     syn = _synth_basis(window, n_fft, hop_length)
     WC, WS = _fullk_basis(window, n_fft)
     lib = _build.load_library()
@@ -547,7 +579,7 @@ def make_gl_momentum_step_fullk(
             code = lib.att_gl_fullk_step(
                 mag32.data_ptr(), *[a.data_ptr() for a in ins], env.data_ptr(), syn.data_ptr(),
                 WC.data_ptr(), WS.data_ptr(), B, T, F, hop_length, n_fft // hop_length,
-                syn.shape[1], rows, tile_t, mom, *[o.data_ptr() for o in outs],
+                syn.shape[1], rows, tile_t, slab, mom, *[o.data_ptr() for o in outs],
                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
             )
         _build.check(code, "gl_momentum_fullk")

@@ -45,6 +45,7 @@ __all__ = [
     "pghi_invert_bidir", "pghi_invert_bidir_reference",
     "pghi_synthesize_fused", "pghi_synthesize_fused_reference",
     "pghi_fused_available", "pghi_phases_available",
+    "ola_supported", "pghi_dispatch",
     "launches", "reset_launches",
 ]
 
@@ -107,6 +108,52 @@ def pghi_fused_available(n_fft: int, hop_length: int) -> bool:
         and hop_length % 4 == 0
         and _pick_rows(n_fft, hop_length) is not None
     )
+
+
+_LANE, _MAX_Q = 128, 16           # the JAX package's OLA layouts (ops/pallas/ola.py)
+
+
+def ola_supported(n_fft: int, hop: int) -> bool:
+    """The JAX package's structural condition on an overlap-add layout
+    (``ops/pallas/ola.py:ola_supported``): a hop that is a multiple of 128, or
+    ``n_fft % 128 == 0`` with frames packed into whole 128-sample rows (a hop
+    dividing 128, or at most 16 frames to a packed row).  The JAX package
+    runs every other layout eagerly; the port's kernels take those it can
+    (:func:`pghi_dispatch`)."""
+    if hop % _LANE == 0:
+        return True
+    if n_fft % _LANE != 0:
+        return False
+    return _LANE % hop == 0 or _LANE // math.gcd(hop, _LANE) <= _MAX_Q
+
+
+def pghi_dispatch(mode: str, n_fft: int, hop: int) -> str:
+    """How an offline PGHI call runs on a CUDA tensor, as data.  A shape goes
+    to the eager formulation only where the JAX package's structural gate
+    (its ``pghi_fused_available`` / ``pghi_phases_available``, which
+    ``STFT.invert`` reads on a TPU) refuses it and the port's kernels cannot
+    take it either:
+
+    * ``mode`` ``"pghi"`` / ``"pghi_bidir"``: ``"fused"`` (the recurrence and
+      the synthesis kernels, causal or bidirectional) where the kernels cover
+      the shape (:func:`pghi_fused_available`) or the JAX package's fused gate
+      holds (``hop | n_fft``, overlap >= 2, a supported overlap-add layout);
+      else as ``"phases"``;
+    * ``mode`` ``"phases"`` (``STFT.pghi``, the seed of ``pghi_gl``):
+      ``"phases"`` (the recurrence kernel, then the eager ISTFT where audio is
+      wanted) where ``hop | n_fft`` and overlap >= 2, else ``"eager"``
+      (``pghi_scan`` and the ISTFT).
+
+    A shape inside the JAX package's gates but beyond a kernel's own limits
+    (more than 4096 bins, ``hop % 4``, shared memory) raises
+    ``NotImplementedError`` at the launch; it is never sent down the eager
+    route."""
+    if mode not in ("pghi", "pghi_bidir", "phases"):
+        raise ValueError("unknown PGHI dispatch mode %r" % mode)
+    phases = n_fft % hop == 0 and n_fft // hop >= 2
+    if mode != "phases" and (pghi_fused_available(n_fft, hop) or (phases and ola_supported(n_fft, hop))):
+        return "fused"
+    return "phases" if phases else "eager"
 
 
 # --------------------------------------------------------- shared plumbing
@@ -369,10 +416,15 @@ def _stream() -> ctypes.c_void_p:
 
 
 def _launch_phases(m, ang, gamma, n_fft, hop, tolerance, bidir) -> torch.Tensor:
-    if not pghi_phases_available(n_fft, hop):
+    if pghi_dispatch("phases", n_fft, hop) == "eager":
         raise ValueError(
-            "the CUDA PGHI kernel does not cover n_fft=%d hop=%d (needs hop | n_fft, "
-            "overlap >= 2 and at most 4096 bins)" % (n_fft, hop)
+            "the CUDA PGHI recurrence does not cover n_fft=%d hop=%d (needs hop | n_fft "
+            "and overlap >= 2)" % (n_fft, hop)
+        )
+    if not pghi_phases_available(n_fft, hop):
+        raise NotImplementedError(
+            "the CUDA PGHI recurrence holds a frame's bins in one block, at most 4096; "
+            "n_fft=%d has %d (ROADMAP Queue 2, K6)" % (n_fft, n_fft // 2 + 1)
         )
     B, T, n_bins = m.shape
     out = torch.empty_like(m)
@@ -390,17 +442,20 @@ def _launch_phases(m, ang, gamma, n_fft, hop, tolerance, bidir) -> torch.Tensor:
 
 
 def _require_synthesis(n_fft: int, hop: int) -> None:
-    """Raise unless the synthesis kernel covers the shape: it never gives way."""
+    """Raise unless the synthesis kernel covers the shape: it never gives way.
+    ``ValueError`` outside the structural gate (:func:`pghi_dispatch`),
+    ``NotImplementedError`` inside it where a kernel's limit bites."""
     if pghi_fused_available(n_fft, hop):
         return
-    if pghi_phases_available(n_fft, hop) and hop % 4 == 0:
+    if pghi_dispatch("pghi", n_fft, hop) == "fused":
         raise NotImplementedError(
-            "the CUDA PGHI synthesis holds a block's frames in shared memory, which "
-            "n_fft=%d hop=%d exceeds (ROADMAP Queue 2, K6)" % (n_fft, hop)
+            "the CUDA PGHI kernels need hop %% 4 == 0, at most 4096 bins and a synthesis "
+            "block that fits shared memory; n_fft=%d hop=%d misses one (ROADMAP Queue 2, K6)"
+            % (n_fft, hop)
         )
     raise ValueError(
         "the CUDA PGHI synthesis does not cover n_fft=%d hop=%d (needs hop | n_fft, "
-        "overlap >= 2, hop %% 4 == 0 and at most 4096 bins)" % (n_fft, hop)
+        "overlap >= 2 and a supported overlap-add layout)" % (n_fft, hop)
     )
 
 

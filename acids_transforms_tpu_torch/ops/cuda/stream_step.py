@@ -19,7 +19,20 @@ to three kernel launches instead of a Python loop of small ops per chunk
 * ``make_fused_magnitude_session``: the magnitude encode alone (the
   ``[.., Magnitude]`` chains' RT-PGHI roundtrip runs it, then Q);
 * ``make_fused_complex_invert`` (S): the complex decode, spectra ``(..., T,
-  F)`` -> audio, P's synthesis reading ``(re, im)`` as they are.
+  F)`` -> audio, P's synthesis reading ``(re, im)`` as they are;
+* ``make_fused_pghi_gl_roundtrip`` / ``make_fused_pghi_gl_invert`` (O): the
+  ``pghi_gl`` roundtrip and decode, the RT-PGHI seed polished by
+  ``gl_iterations`` pinned-context Griffin-Lim projections a chunk.  O is
+  serial across chunks (a chunk's seed and pinned context are the previous
+  chunk's polished phases), so its wrapper walks the chunks on the host, each
+  over the whole batch: the recurrence seeded with the carries
+  (``csrc/pghi.cu``, one launch), per iteration the projection's synthesis
+  (P's kernel with the basis divided by ``overlap``) and its analysis
+  (``gl_project_analysis_kernel``: the re-framed analysis, ``atan2``, the
+  kept rows left alone), then the commit and the carries in small tensor
+  operations; P's synthesis of every committed frame ends the session.  The
+  roundtrip runs the magnitude encode first.  :func:`gl_project_reference` is
+  the projection's plain version.
 
 Why N is three launches and not one: the recurrence is serial per session, so
 one fused launch would hold both ``O(n_fft F)`` products to one block per
@@ -40,10 +53,15 @@ also what the kernels are held against on the card.
 Gates.  ``fused_*_available`` keep the JAX package's structural conditions:
 ``OverlapAdd`` and a ``RealtimeSTFT``-family transform with the same ``(n_fft,
 hop)``, ``hop | n_fft``, ``2 <= overlap <= 8``, ``hop | chunk`` and ``chunk >=
-n_fft``.  The TPU lane layout's further conditions are replaced by the
-kernels' own limits, ``hop % 4 == 0`` and a block that fits shared memory
-(:func:`kernel_covers`); a shape inside the gate but outside those limits
-raises ``NotImplementedError`` on a CUDA tensor and is never sent elsewhere.
+n_fft``; ``pghi_gl`` adds ``lookahead_frames <= T_c`` and ``0 < gl_context <=
+T_c``.  The overlap-add layout is the JAX package's
+(``pghi_kernel.ola_supported``) or any the session's kernels take, by their
+own limits: ``hop % 4 == 0``, a block that fits shared memory, at most 4096
+bins in the recurrence and 40 polished frames a chunk (:func:`kernel_covers`).
+So only a shape that neither covers (hop 250) streams through the generic
+scan, as it does in the JAX package; a shape inside the JAX package's layouts
+but outside the kernels' limits raises ``NotImplementedError`` on a CUDA
+tensor and is never sent elsewhere.
 
 RT-PGHI.  The recurrence is ``ops/pghi.py:pghi_scan(time_stencil="backward")``
 per chunk with the chunk's own threshold (``tolerance`` times the chunk's
@@ -57,6 +75,18 @@ phi}`` of the last frame (the JAX kernel carries it unwrapped, ROADMAP Queue
 (:func:`rt_pghi_phases_reference`) repeats the kernel's order of additions,
 as ``pghi_kernel.py`` does for K.
 
+``pghi_gl``.  The chunk's ``T_c + lookahead`` frames (the pending ones
+first) go through the recurrence as one chunk: one threshold over all of
+them, the carries ``mag_buffer`` / ``phase_buffer`` as its history.  The
+polished grid is ``[gl_context pinned frames; those frames]`` plus
+``overlap - 1`` zero frames, so that P's synthesis of the padded grid is its
+whole overlap-add.  The carries come from the committed frames only: the
+magnitudes as they are (the generic scan takes ``|m e^{i phi}|``, equal up to
+rounding), the wrapped angle of the last committed frame, the pinned context's
+phases as polished (unwrapped where a frozen row keeps the seed), and the
+trailing ``lookahead`` magnitudes.  The draws are ``batch_shape + (T_c +
+lookahead, F)`` a chunk.
+
 Angle draws.  The random sessions draw their angles chunk by chunk, each of
 shape ``batch_shape + (T_c, F)``, from one ``torch.Generator`` through
 ``ops/pghi.py:random_angles``, in the order the generic chunk scan draws them
@@ -68,6 +98,7 @@ them as an operand instead (the tests feed the JAX package's draws).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -77,7 +108,7 @@ from ..fft import _dft_matrices, _idft_matrices, _tables
 from ..framing import frame, overlap_add
 from ..pghi import EPS, random_angles
 from . import _build
-from .pghi_kernel import _bins_per_thread, _fill_frame
+from .pghi_kernel import _bins_per_thread, _fill_frame, ola_supported
 
 __all__ = [
     "fused_forward_session_available", "make_fused_forward_session",
@@ -87,10 +118,12 @@ __all__ = [
     "fused_pghi_roundtrip_available", "make_fused_pghi_roundtrip", "make_fused_magnitude_session",
     "fused_pghi_invert_available", "make_fused_pghi_invert",
     "fused_complex_invert_available", "make_fused_complex_invert",
-    "kernel_covers", "session_rows", "session_angles", "rt_pghi_phases",
+    "fused_pghi_gl_roundtrip_available", "make_fused_pghi_gl_roundtrip",
+    "fused_pghi_gl_invert_available", "make_fused_pghi_gl_invert",
+    "kernel_covers", "session_rows", "session_angles", "rt_pghi_phases", "gl_project",
     "session_encode_reference", "session_roundtrip_reference", "session_decode_reference",
     "session_magnitude_reference", "rt_pghi_phases_reference", "session_complex_decode_reference",
-    "launches", "reset_launches",
+    "gl_project_reference", "session_pghi_gl_reference", "launches", "reset_launches",
 ]
 
 MAX_SMEM = 232448                 # bytes of shared memory a block may use on sm_90
@@ -101,11 +134,13 @@ _STAGE = 2 * 32 * 128             # floats of the staging area both phases share
 
 #: kernel launches made by the wrappers of this module, by kernel
 #: (``session_random_decode`` counts P's kernel, which is also the synthesis of
-#: the RT-PGHI sessions)
+#: the RT-PGHI sessions; O's launches of it as the projection's synthesis count
+#: as ``gl_project_synthesis``, the seeded recurrence as ``rt_pghi_seeded``)
 launches: Dict[str, int] = {
     "session_encode": 0, "session_roundtrip": 0,
     "session_random_roundtrip": 0, "session_random_decode": 0,
     "session_magnitude": 0, "rt_pghi_phases": 0, "session_complex_decode": 0,
+    "rt_pghi_seeded": 0, "gl_project_synthesis": 0, "gl_project_analysis": 0,
 }
 
 
@@ -130,66 +165,106 @@ def _parts(chain):
     return oadd, rt
 
 
-def fused_roundtrip_available(chain, chunk_size: int) -> bool:
-    """True when ``chain`` is ``[OverlapAdd, RealtimeSTFT-family]`` with
-    matching ``(n_fft, hop)``, ``hop | n_fft``, ``2 <= overlap <= 8``, ``hop |
-    chunk`` and ``chunk >= n_fft`` (the structure every session kernel of
-    this module covers; :func:`kernel_covers` adds the kernels' limits)."""
+def _gate(chain, chunk_size: int, kinds: Tuple[str, ...], rows: Optional[int] = None) -> bool:
+    """The structure every session kernel of this module covers: ``[OverlapAdd,
+    RealtimeSTFT-family]`` with matching ``(n_fft, hop)``, ``hop | n_fft``, ``2
+    <= overlap <= 8``, ``hop | chunk`` and ``chunk >= n_fft``; and an
+    overlap-add layout that the JAX package supports
+    (``pghi_kernel.ola_supported``) or that every kernel of ``kinds`` takes
+    (:func:`kernel_covers`).  So a shape goes to the generic scan only where
+    the JAX package streams it there and the port's kernels cannot take it
+    either (hop 250); one inside the JAX package's layouts but beyond a
+    kernel's limits raises at the launch."""
     parts = _parts(chain)
     if parts is None:
         return False
     oadd, rt = parts
+    n_fft, hop = rt.n_fft, rt.hop_length
     return (
-        oadd.n_fft == rt.n_fft
-        and oadd.hop_length == rt.hop_length
-        and rt.n_fft % rt.hop_length == 0
-        and 2 <= rt.n_fft // rt.hop_length <= MAX_OVERLAP
-        and chunk_size % rt.hop_length == 0
-        and chunk_size >= rt.n_fft
+        oadd.n_fft == n_fft
+        and oadd.hop_length == hop
+        and n_fft % hop == 0
+        and 2 <= n_fft // hop <= MAX_OVERLAP
+        and chunk_size % hop == 0
+        and chunk_size >= n_fft
+        and (ola_supported(n_fft, hop) or all(kernel_covers(k, n_fft, hop, rows) for k in kinds))
     )
 
 
+def fused_roundtrip_available(chain, chunk_size: int) -> bool:
+    """Gate of the complex roundtrip session (kernel L)."""
+    return _gate(chain, chunk_size, ("roundtrip",))
+
+
 def fused_random_roundtrip_available(chain, chunk_size: int) -> bool:
-    """Gate of the ``inversion_mode="random"`` roundtrip session: the same
+    """Gate of the ``inversion_mode="random"`` roundtrip session (M): the same
     structure (random phases carry no per-chunk statistic)."""
-    return fused_roundtrip_available(chain, chunk_size)
+    return _gate(chain, chunk_size, ("roundtrip",))
 
 
 def fused_forward_session_available(chain, chunk_size: int) -> bool:
-    """Gate of the encode session: the same structure."""
-    return fused_roundtrip_available(chain, chunk_size)
+    """Gate of the encode session (R), also the 3-chain's magnitude encode."""
+    return _gate(chain, chunk_size, ("encode",))
 
 
 def _invert_chunk_size(chain, chunk_frames: int) -> Optional[int]:
     """``chunk_frames * hop`` for a recognized two-chain, else None: the
-    invert gates reuse the roundtrip gate."""
+    invert gates are the roundtrip gates at that chunk."""
     parts = _parts(chain)
     return None if parts is None else chunk_frames * parts[1].hop_length
 
 
 def fused_random_invert_available(chain, chunk_frames: int) -> bool:
-    """Gate of the ``inversion_mode="random"`` decode session."""
+    """Gate of the ``inversion_mode="random"`` decode session (P)."""
     cs = _invert_chunk_size(chain, chunk_frames)
-    return cs is not None and fused_random_roundtrip_available(chain, cs)
+    return cs is not None and _gate(chain, cs, ("decode",))
 
 
 def fused_pghi_roundtrip_available(chain, chunk_size: int) -> bool:
-    """Gate of the ``inversion_mode="pghi"`` roundtrip session: the same
-    structure (the integer overlap and the window's ``gamma`` PGHI needs are
-    in it: ``hop | n_fft``, and every ``RealtimeSTFT`` has a gamma).  The
-    threshold is a chunk statistic, so the chunk is a parameter of the
-    recurrence, not a tiling."""
-    return fused_roundtrip_available(chain, chunk_size)
+    """Gate of the ``inversion_mode="pghi"`` roundtrip session (the magnitude
+    encode, N, P): the same structure (the integer overlap and the window's
+    ``gamma`` PGHI needs are in it: ``hop | n_fft``, and every
+    ``RealtimeSTFT`` has a gamma).  The threshold is a chunk statistic, so the
+    chunk is a parameter of the recurrence, not a tiling."""
+    return _gate(chain, chunk_size, ("encode", "recurrence", "decode"))
 
 
 def fused_pghi_invert_available(chain, chunk_frames: int) -> bool:
-    """Gate of the ``inversion_mode="pghi"`` decode session."""
-    return fused_random_invert_available(chain, chunk_frames)
+    """Gate of the ``inversion_mode="pghi"`` decode session (Q: N's
+    recurrence, P)."""
+    cs = _invert_chunk_size(chain, chunk_frames)
+    return cs is not None and _gate(chain, cs, ("recurrence", "decode"))
 
 
 def fused_complex_invert_available(chain, chunk_frames: int) -> bool:
-    """Gate of the complex (explicit-phase) decode session."""
-    return fused_random_invert_available(chain, chunk_frames)
+    """Gate of the complex (explicit-phase) decode session (S)."""
+    cs = _invert_chunk_size(chain, chunk_frames)
+    return cs is not None and _gate(chain, cs, ("decode",))
+
+
+def _gl_gate(chain, chunk_size: int, kinds: Tuple[str, ...]) -> bool:
+    parts = _parts(chain)
+    if parts is None:
+        return False
+    rt = parts[1]
+    T_c = chunk_size // rt.hop_length
+    la = int(rt.lookahead_frames)
+    return (0 <= la <= T_c and 0 < int(rt.gl_context) <= T_c
+            and _gate(chain, chunk_size, kinds + ("project",), T_c + la))
+
+
+def fused_pghi_gl_roundtrip_available(chain, chunk_size: int) -> bool:
+    """Gate of the ``inversion_mode="pghi_gl"`` roundtrip session (the
+    magnitude encode, O, P): the ``pghi`` structure, ``0 <= lookahead_frames
+    <= T_c`` and ``0 < gl_context <= T_c`` (the JAX gate's ``hop % 128`` lane
+    condition gives way to the kernels' own limits, :func:`kernel_covers`)."""
+    return _gl_gate(chain, chunk_size, ("encode", "recurrence", "decode"))
+
+
+def fused_pghi_gl_invert_available(chain, chunk_frames: int) -> bool:
+    """Gate of the ``inversion_mode="pghi_gl"`` decode session (O, P)."""
+    cs = _invert_chunk_size(chain, chunk_frames)
+    return cs is not None and _gl_gate(chain, cs, ("recurrence", "decode"))
 
 
 # ------------------------------------------------------- kernels' limits
@@ -229,6 +304,7 @@ def _best_rows(candidates, overlap: int) -> Optional[int]:
     return best
 
 
+@functools.lru_cache(maxsize=None)
 def _pick_rows(kind: str, n_fft: int, hop: int) -> Optional[int]:
     """Frames (encode) or output chunks (roundtrip, decode) per block, or
     None when not even one fits shared memory."""
@@ -245,27 +321,41 @@ def _pick_rows(kind: str, n_fft: int, hop: int) -> Optional[int]:
     return _best_rows(fit, overlap)
 
 
-def kernel_covers(kind: str, n_fft: int, hop: int) -> bool:
+def _project_frames_fit(n_fft: int, hop: int, rows: int) -> bool:
+    """Whether O's projection analysis takes a grid of ``rows`` polished
+    frames (``T_c + lookahead``): at most 40, whose samples fit shared memory."""
+    return 1 <= rows <= MAX_ROWS and _encode_smem_bytes(rows, hop, _k_analysis(n_fft)) <= MAX_SMEM
+
+
+def kernel_covers(kind: str, n_fft: int, hop: int, rows: Optional[int] = None) -> bool:
     """Whether the kernel of ``kind`` takes the shape: ``"encode"`` (R and the
     magnitude encode), ``"roundtrip"`` (L, M) and ``"decode"`` (P, S) need
     ``hop % 4 == 0`` (16-byte rows) and a block that fits shared memory;
-    ``"recurrence"`` (RT-PGHI) at most 4096 bins, what one block holds."""
+    ``"recurrence"`` (RT-PGHI) at most 4096 bins, what one block holds;
+    ``"project"`` (O's projection analysis) P's limits and a grid of ``rows``
+    polished frames (``T_c + lookahead``) of at most 40 whose samples fit
+    shared memory."""
     if kind == "recurrence":
         return n_fft % hop == 0 and _bins_per_thread(n_fft // 2 + 1) is not None
+    if kind == "project":
+        return kernel_covers("decode", n_fft, hop) and _project_frames_fit(n_fft, hop, int(rows))
     return hop % 4 == 0 and n_fft % hop == 0 and _pick_rows(kind, n_fft, hop) is not None
 
 
-def _require(kind: str, n_fft: int, hop: int) -> Optional[int]:
-    """The block height of ``kind`` (None for the recurrence), or raise: a
-    shape the structural gate lets through is never quietly computed some
-    other way."""
-    if kernel_covers(kind, n_fft, hop):
-        return None if kind == "recurrence" else _pick_rows(kind, n_fft, hop)
-    need = ("at most 4096 bins" if kind == "recurrence"
-            else "hop % 4 == 0 and a block that fits shared memory")
+def _require(kind: str, n_fft: int, hop: int, rows: Optional[int] = None) -> Optional[int]:
+    """The block height of ``kind`` (None for the recurrence and the
+    projection), or raise: a shape the structural gate lets through is never
+    quietly computed some other way."""
+    if kernel_covers(kind, n_fft, hop, rows):
+        return None if kind in ("recurrence", "project") else _pick_rows(kind, n_fft, hop)
+    need = {
+        "recurrence": "at most 4096 bins",
+        "project": "hop % 4 == 0 and at most 40 polished frames (T_c + lookahead) whose "
+                   "samples fit shared memory",
+    }.get(kind, "hop % 4 == 0 and a block that fits shared memory")
     raise NotImplementedError(
         "the CUDA session kernels do not cover n_fft=%d hop=%d (%s): they need "
-        "%s (ROADMAP Queue 2, K10-K16); use backend='generic'" % (n_fft, hop, kind, need)
+        "%s (ROADMAP Queue 2, K10-K17); use backend='generic'" % (n_fft, hop, kind, need)
     )
 
 
@@ -391,14 +481,15 @@ def _rt_constants(gamma: float, n_fft: int, hop: int):
 
 
 def rt_pghi_phases_reference(mag, angles, gamma: float, n_fft: int, hop: int, tolerance: float,
-                             chunk_frames: int) -> torch.Tensor:
+                             chunk_frames: int, prev_mag=None, prev_phase=None) -> torch.Tensor:
     """Plain version of the RT-PGHI recurrence: magnitudes ``(B, T, F)``, ``T``
     a multiple of ``chunk_frames``, and the silent bins' angles ``(B, >= T,
     F)`` -> phases ``(B, T, F)``, in the kernel's order of additions (see the
     module notes).  Frame ``t``'s two previous frames are the session's own
-    (two zero frames before the first); chunk ``c``'s threshold is
-    ``max(tolerance * max(mag[c]), EPS)``; at each chunk boundary the phase
-    carry becomes ``atan2(m sin phi, m cos phi)`` of the last frame."""
+    (before the first: ``prev_mag (B, 2, F)``, or two zero frames); chunk
+    ``c``'s threshold is ``max(tolerance * max(mag[c]), EPS)``; the phase
+    carry starts at ``prev_phase (B, F)`` (or zeros) and at each chunk
+    boundary becomes ``atan2(m sin phi, m cos phi)`` of the last frame."""
     B, T, n_bins = mag.shape
     T_c = int(chunk_frames)
     if T % T_c:
@@ -407,8 +498,9 @@ def rt_pghi_phases_reference(mag, angles, gamma: float, n_fft: int, hop: int, to
     fmul, inv_fmul, carrier = _rt_constants(gamma, n_fft, hop)
     bpt = _bins_per_thread(n_bins)
     n_pad = -(-n_bins // (32 * bpt)) * 32 * bpt
-    # two zero frames before the session: the fresh carry
-    mz = torch.cat([mag.new_zeros((B, 2, n_bins)), mag], dim=1)
+    # the carried history (a fresh session: two zero frames)
+    prev = mag.new_zeros((B, 2, n_bins)) if prev_mag is None else prev_mag.to(dt)
+    mz = torch.cat([prev, mag], dim=1)
     Yz = torch.log(torch.clamp_min(mz, EPS))
     ck = carrier * torch.arange(n_bins, device=dev, dtype=dt)
     up = torch.cat([Yz[..., 1:], Yz[..., -1:]], dim=-1)
@@ -436,7 +528,8 @@ def rt_pghi_phases_reference(mag, angles, gamma: float, n_fft: int, hop: int, to
 
     big = float(10 * n_bins)
     out = torch.empty((B, T, n_bins), device=dev, dtype=dt)
-    phi = torch.zeros((B, n_bins), device=dev, dtype=dt)
+    phi = (torch.zeros((B, n_bins), device=dev, dtype=dt) if prev_phase is None
+           else prev_phase.to(dt).clone())
     for t in range(T):
         if t and t % T_c == 0:
             m = mag[:, t - 1]
@@ -467,24 +560,39 @@ def _launch_encode(x2d, WC, WS, n_fft, hop, T, magnitude: bool = False) -> torch
     return out
 
 
-def _launch_rt_pghi(mag, angles, gamma, n_fft, hop, tolerance, T_c) -> torch.Tensor:
+def _launch_rt_pghi(mag, angles, gamma, n_fft, hop, tolerance, T_c, prev_mag=None,
+                    prev_phase=None) -> torch.Tensor:
     """The RT-PGHI recurrence: ``mag (B, T, F)``, ``T`` a multiple of ``T_c``,
-    ``angles (B, >= T, F)`` -> phases ``(B, T, F)``."""
+    ``angles (B, >= T, F)`` -> phases ``(B, T, F)``; seeded by ``prev_mag (B,
+    2, F)`` and ``prev_phase (B, F)`` when given (counted as
+    ``rt_pghi_seeded``)."""
     _require("recurrence", n_fft, hop)
     B, T, F = mag.shape
     if T % T_c:
         raise ValueError("%d frames are no whole number of %d-frame chunks" % (T, T_c))
+    seeded = prev_mag is not None
+    if seeded:
+        prev_mag = _checked_f32(prev_mag, mag.device, (B, 2, F), "prev_mag")
+        prev_phase = _checked_f32(prev_phase, mag.device, (B, F), "prev_phase")
     fmul, inv_fmul, carrier = _rt_constants(gamma, n_fft, hop)
     out = torch.empty_like(mag)
     lib = _build.load_library()
     with torch.cuda.device(mag.device):
         code = lib.att_rt_pghi_phases(
-            mag.data_ptr(), angles.data_ptr(), out.data_ptr(), B, T, angles.shape[1], F, T_c,
+            mag.data_ptr(), angles.data_ptr(), prev_mag.data_ptr() if seeded else None,
+            prev_phase.data_ptr() if seeded else None, out.data_ptr(), B, T, angles.shape[1], F, T_c,
             float(tolerance), fmul, inv_fmul, carrier, _bins_per_thread(F), _stream(),
         )
-    _build.check(code, "rt_pghi_phases")
-    launches["rt_pghi_phases"] += 1
+    name = "rt_pghi_seeded" if seeded else "rt_pghi_phases"
+    _build.check(code, name)
+    launches[name] += 1
     return out
+
+
+def _checked_f32(a: torch.Tensor, dev, shape, what: str) -> torch.Tensor:
+    if a is None or tuple(a.shape) != tuple(shape):
+        raise ValueError("%s must be %s, got %s" % (what, tuple(shape), None if a is None else tuple(a.shape)))
+    return a.to(device=dev, dtype=torch.float32).contiguous()
 
 
 def _launch_roundtrip(x2d, angles, WC, WS, syn, n_fft, hop, T) -> torch.Tensor:
@@ -505,10 +613,12 @@ def _launch_roundtrip(x2d, angles, WC, WS, syn, n_fft, hop, T) -> torch.Tensor:
     return out
 
 
-def _launch_decode(mag, angles, syn, n_fft, hop) -> torch.Tensor:
+def _launch_decode(mag, angles, syn, n_fft, hop, rows=None, name=None) -> torch.Tensor:
     """P: ``mag (B, T, F)`` with ``angles (B, >= T, F)``; S (``angles=None``):
-    ``mag`` is the spectrum as ``(B, T, F, 2)`` floats."""
-    rows = _require("decode", n_fft, hop)
+    ``mag`` is the spectrum as ``(B, T, F, 2)`` floats.  ``rows`` output
+    chunks per block (default: the widest that fits), ``name`` the counter."""
+    fit = _require("decode", n_fft, hop)
+    rows = fit if rows is None else min(int(rows), fit)
     B, T, F = mag.shape[:3]
     out = torch.empty((B, T * hop), dtype=torch.float32, device=mag.device)
     lib = _build.load_library()
@@ -518,26 +628,86 @@ def _launch_decode(mag, angles, syn, n_fft, hop) -> torch.Tensor:
             out.data_ptr(), B, T, T if angles is None else angles.shape[1], F, hop, n_fft // hop,
             syn.shape[1], rows, _stream(),
         )
-    name = "session_complex_decode" if angles is None else "session_random_decode"
+    name = name or ("session_complex_decode" if angles is None else "session_random_decode")
     _build.check(code, name)
     launches[name] += 1
     return out
 
 
 def rt_pghi_phases(mag, angles, gamma: float, n_fft: int, hop: int, tolerance: float,
-                   chunk_frames: int) -> torch.Tensor:
+                   chunk_frames: int, prev_mag=None, prev_phase=None) -> torch.Tensor:
     """The RT-PGHI recurrence of a whole session, ``mag (B, T, F)`` (``T`` a
     multiple of ``chunk_frames``) and angles ``(B, >= T, F)`` -> phases ``(B,
-    T, F)``: the kernel on a CUDA tensor, :func:`rt_pghi_phases_reference` on
-    a CPU one."""
+    T, F)``, from a carried history ``prev_mag (B, 2, F)`` / ``prev_phase (B,
+    F)`` (both or neither; none: a fresh session): the kernel on a CUDA
+    tensor, :func:`rt_pghi_phases_reference` on a CPU one."""
     if mag.ndim != 3 or angles.shape[0] != mag.shape[0] or angles.shape[-1] != mag.shape[-1]:
         raise ValueError("expected mag (B, T, F) and angles (B, >= T, F), got %s and %s"
                          % (tuple(mag.shape), tuple(angles.shape)))
+    if (prev_mag is None) != (prev_phase is None):
+        raise ValueError("prev_mag and prev_phase seed the recurrence together")
     mag = mag.to(torch.float32).contiguous()
     angles = _angles_3d(angles, mag.shape[0], mag.shape[1], mag.shape[2], mag.device)
     if mag.is_cuda:
-        return _launch_rt_pghi(mag, angles, gamma, n_fft, hop, tolerance, chunk_frames)
-    return rt_pghi_phases_reference(mag, angles, gamma, n_fft, hop, tolerance, chunk_frames)
+        return _launch_rt_pghi(mag, angles, gamma, n_fft, hop, tolerance, chunk_frames, prev_mag, prev_phase)
+    return rt_pghi_phases_reference(mag, angles, gamma, n_fft, hop, tolerance, chunk_frames,
+                                    prev_mag, prev_phase)
+
+
+def gl_project_reference(mag, phase, inv_window, window, n_fft: int, hop: int, ctx: int,
+                         keep_lo: int, keep_hi: int) -> torch.Tensor:
+    """Plain version of O's projection: the grid's magnitudes and phases ``(B,
+    Tx + overlap - 1, F)`` (the last ``overlap - 1`` frames zero magnitude) ->
+    the phases after one projection, ``atan2`` of the analysis of the
+    overlap-add (divided by ``overlap``) re-framed at the grid's frames, on
+    rows ``ctx .. Tx - 1`` outside ``[keep_lo, keep_hi)``; every other row as
+    it was."""
+    overlap = n_fft // hop
+    Tp = mag.shape[1]
+    Tx = Tp - (overlap - 1)
+    y = _synthesize(mag * torch.cos(phase), mag * torch.sin(phase), inv_window, float(overlap),
+                    n_fft, hop, Tp)
+    fr = y.unfold(-1, n_fft, hop)[:, ctx:Tx]
+    WC, WS = _ana_basis(window.to(mag.device), n_fft)
+    new = torch.atan2(torch.matmul(fr, WS), torch.matmul(fr, WC))
+    rows = torch.arange(ctx, Tx, device=mag.device)
+    upd = ((rows < keep_lo) | (rows >= keep_hi))[None, :, None]
+    out = phase.clone()
+    out[:, ctx:Tx] = torch.where(upd, new, phase[:, ctx:Tx])
+    return out
+
+
+def _launch_project_analysis(y, phase, WC, WS, n_fft, hop, Tx, ctx, keep_lo, keep_hi) -> None:
+    """O's projection analysis, ``phase`` updated in place."""
+    _require("project", n_fft, hop, Tx - ctx)
+    B, Tp, F = phase.shape
+    lib = _build.load_library()
+    with torch.cuda.device(y.device):
+        code = lib.att_gl_project_analysis(
+            y.data_ptr(), WC.data_ptr(), WS.data_ptr(), phase.data_ptr(), B, y.shape[1], Tp, Tx, ctx,
+            keep_lo, keep_hi, F, hop, WC.shape[0], _stream(),
+        )
+    _build.check(code, "gl_project_analysis")
+    launches["gl_project_analysis"] += 1
+
+
+#: output chunks per block of the projection's synthesis: narrow, so that one
+#: session's grid (about 22 chunks at the main shape) spreads over several SMs
+PROJECT_SYN_ROWS = 8
+
+
+def gl_project(mag, phase, proj_syn, inv_window, window, WC, WS, n_fft: int, hop: int, ctx: int,
+               keep_lo: int, keep_hi: int) -> torch.Tensor:
+    """One projection of O's grid (see :func:`gl_project_reference`): on a
+    CUDA tensor P's synthesis with ``proj_syn`` (the basis divided by
+    ``overlap``) then the analysis kernel, which updates ``phase`` in place
+    and returns it; on a CPU tensor the plain version."""
+    if not mag.is_cuda:
+        return gl_project_reference(mag, phase, inv_window, window, n_fft, hop, ctx, keep_lo, keep_hi)
+    Tx = mag.shape[1] - (n_fft // hop - 1)
+    y = _launch_decode(mag, phase, proj_syn, n_fft, hop, rows=PROJECT_SYN_ROWS, name="gl_project_synthesis")
+    _launch_project_analysis(y, phase, WC, WS, n_fft, hop, Tx, ctx, keep_lo, keep_hi)
+    return phase
 
 
 # ---------------------------------------------------------------- sessions
@@ -581,7 +751,81 @@ class _Session:
         """Raise unless every kernel a session launches covers the shape,
         before the first one runs."""
         for kind in kinds:
-            _require(kind, self.n_fft, self.hop)
+            _require(kind, self.n_fft, self.hop, self.T_c + int(self.rt.lookahead_frames))
+
+    def pghi_gl_decode(self, mag: torch.Tensor, angles: torch.Tensor, syn, T: int) -> torch.Tensor:
+        """O after the analysis: magnitudes ``(B, n_chunks T_c, F)`` and the
+        seed's angles ``(B, n_chunks (T_c + la), F)`` -> the synthesis of the
+        first ``T`` committed frames, ``(B, T * hop)``.  The recurrence and
+        the projection are the kernels on a CUDA tensor and their plain
+        versions on a CPU one."""
+        rt, n_fft, hop = self.rt, self.n_fft, self.hop
+        proj_syn = WC = WS = None
+        if mag.is_cuda:
+            proj_syn = _syn_basis(rt.inv_window, float(n_fft // hop), n_fft, hop)
+            WC, WS = self.analysis()
+        cm, cp = _pghi_gl_commits(
+            mag, angles, rt, self.T_c,
+            lambda mx, ph, ctx, lo, hi: gl_project(mx, ph, proj_syn, rt.inv_window, rt.window, WC, WS,
+                                                   n_fft, hop, ctx, lo, hi))
+        if mag.is_cuda:
+            return _launch_decode(cm, cp, syn, n_fft, hop)[:, : T * hop]
+        return session_decode_reference(cm[:, :T], cp, rt.inv_window, self.gain, n_fft, hop)
+
+
+def _pghi_gl_commits(mag, angles, rt, T_c: int, project):
+    """O's host loop over the chunks, each over the whole batch: the seeded
+    recurrence (:func:`rt_pghi_phases`), ``gl_iterations`` calls of
+    ``project(grid_mag, grid_phase, ctx, keep_lo, keep_hi)`` (a projection
+    that returns the new grid phases), the commit and the carries (module
+    notes).  Returns the committed magnitudes and phases ``(B, n_chunks T_c,
+    F)``."""
+    n_fft, hop = rt.n_fft, rt.hop_length
+    B, F = mag.shape[0], mag.shape[-1]
+    ctx, la, iters = int(rt.gl_context), int(rt.lookahead_frames), int(rt.gl_iterations)
+    Tt = T_c + la
+    keep_lo, keep_hi = rt.gl_frozen(T_c)
+    args = (rt.gamma, n_fft, hop, float(rt.tolerance), Tt)
+    mag_buf, ph_buf = mag.new_zeros((B, 2, F)), mag.new_zeros((B, F))
+    gl_mag, gl_ph = mag.new_zeros((B, ctx, F)), mag.new_zeros((B, ctx, F))
+    la_mag, tail = mag.new_zeros((B, la, F)), mag.new_zeros((B, n_fft // hop - 1, F))
+    c_mag, c_ph = [], []
+    for c in range(mag.shape[1] // T_c):
+        m = torch.cat([la_mag, mag[:, c * T_c: (c + 1) * T_c]], dim=1)
+        a = angles[:, c * Tt: (c + 1) * Tt].contiguous()
+        ph0 = rt_pghi_phases(m.contiguous(), a, *args, prev_mag=mag_buf, prev_phase=ph_buf)
+        mag_x = torch.cat([gl_mag, m, tail], dim=1).contiguous()
+        ph = torch.cat([gl_ph, ph0, tail], dim=1).contiguous()
+        for _ in range(iters):
+            ph = project(mag_x, ph, ctx, keep_lo, keep_hi)
+        cm, cp = m[:, :T_c], ph[:, ctx: ctx + T_c]
+        c_mag.append(cm)
+        c_ph.append(cp)
+        last = cm[:, -1]
+        mag_buf = cm[:, -2:]
+        ph_buf = torch.atan2(last * torch.sin(cp[:, -1]), last * torch.cos(cp[:, -1]))
+        gl_mag = torch.cat([gl_mag, cm], dim=1)[:, -ctx:]
+        gl_ph = torch.cat([gl_ph, cp], dim=1)[:, -ctx:]
+        la_mag = m[:, T_c:]
+    return torch.cat(c_mag, dim=1).contiguous(), torch.cat(c_ph, dim=1).contiguous()
+
+
+def session_pghi_gl_reference(mag, angles, rt, gain: float, T_c: int, T: int) -> torch.Tensor:
+    """Plain version of session O on any device: magnitudes ``(B, n_chunks
+    T_c, F)`` and the seed's angles ``(B, n_chunks (T_c + la), F)`` -> ``(B, T
+    * hop)``.  It is the generic scan's step, ``rt.pghi_gl_stream``, chunk by
+    chunk from a fresh state (``torch.fft``, ``pghi_scan``), then the
+    overlap-add of its frames divided by OverlapAdd's gain: the same function
+    as the kernel route, written independently of its host loop."""
+    B, hop = mag.shape[0], rt.hop_length
+    Tt = T_c + int(rt.lookahead_frames)
+    state = {k: v.to(mag.device) for k, v in rt.init_state((B,), mode="pghi_gl").items()}
+    frames = []
+    for c in range(mag.shape[1] // T_c):
+        state, fr = rt.pghi_gl_stream(state, mag[:, c * T_c: (c + 1) * T_c],
+                                      angles=angles[:, c * Tt: (c + 1) * Tt])
+        frames.append(fr)
+    return overlap_add(torch.cat(frames, dim=1)[:, :T], hop)[:, : T * hop] / gain
 
 
 def make_fused_forward_session(chain, chunk_size: int):
@@ -783,5 +1027,67 @@ def make_fused_complex_invert(chain, chunk_frames: int):
         else:
             out = session_complex_decode_reference(spec, s.rt.inv_window, s.gain, s.n_fft, s.hop)
         return out.reshape(batch_shape + (T * s.hop,))
+
+    return run
+
+
+def _gl_angles(s: _Session, batch_shape, n_chunks: int, B: int, device, generator, angles):
+    """The seed's draws, ``batch_shape + (T_c + la, F)`` a chunk (the frames
+    the generic scan's ``pghi_stream`` draws for), or ``angles`` as given."""
+    Tt = s.T_c + int(s.rt.lookahead_frames)
+    if angles is None:
+        return session_angles(batch_shape, n_chunks, Tt, s.F, device, generator)
+    return _angles_3d(angles, B, n_chunks * Tt, s.F, device)
+
+
+def make_fused_pghi_gl_roundtrip(chain, chunk_size: int, generator: Optional[torch.Generator] = None,
+                                 angles: Optional[torch.Tensor] = None):
+    """Whole-session ``inversion_mode="pghi_gl"`` roundtrip ``fn(x (..., L))
+    -> audio (..., n_chunks * chunk_size)``: the magnitude encode, then O
+    (per chunk the seeded recurrence and ``gl_iterations`` projections, then
+    the synthesis of the committed frames; see the module notes).  The seed's
+    silent bins take :func:`session_angles` of ``T_c + lookahead_frames``
+    frames a chunk from ``generator``, or ``angles (..., >= n_chunks (T_c +
+    la), F)``.  Equal to ``scan_roundtrip(chain, x, chunk_size,
+    inversion_mode="pghi_gl", generator=g)`` with a generator in the same
+    state, up to float32 rounding and the anchor decisions it can flip."""
+    s = _Session(chain, chunk_size // chain.transforms[1].hop_length)
+    WC, WS = s.analysis()
+    syn = s.synthesis()
+
+    def run(x: torch.Tensor) -> torch.Tensor:
+        batch_shape = tuple(x.shape[:-1])
+        n_chunks = -(-x.shape[-1] // chunk_size)
+        T = n_chunks * s.T_c
+        xb = _flat(x)
+        if xb.is_cuda:
+            s.require("encode", "recurrence", "decode", "project")
+        a = _gl_angles(s, batch_shape, n_chunks, xb.shape[0], xb.device, generator, angles)
+        y = s.pghi_gl_decode(s.magnitude(xb, WC, WS, T), a, syn, T)
+        return y.reshape(batch_shape + (T * s.hop,))
+
+    return run
+
+
+def make_fused_pghi_gl_invert(chain, chunk_frames: int, generator: Optional[torch.Generator] = None,
+                              angles: Optional[torch.Tensor] = None):
+    """Whole-session ``inversion_mode="pghi_gl"`` DECODE ``fn(mags (..., T,
+    F)) -> audio (..., T * hop)``: O over ``ceil(T / chunk_frames)`` whole
+    chunks (the last zero-frame padded, as the generic scan pads it).  Equal
+    to ``scan_invert(chain, mags, chunk_frames, inversion_mode="pghi_gl",
+    generator=g)`` under the roundtrip's terms."""
+    s = _Session(chain, chunk_frames)
+    syn = s.synthesis()
+
+    def run(y: torch.Tensor) -> torch.Tensor:
+        batch_shape = tuple(y.shape[:-2])
+        T = y.shape[-2]
+        n_chunks = -(-T // s.T_c)
+        mag = y.reshape((-1, T, s.F)).to(torch.float32)
+        mag = torch.nn.functional.pad(mag, (0, 0, 0, n_chunks * s.T_c - T)).contiguous()
+        if mag.is_cuda:
+            s.require("recurrence", "decode", "project")
+        a = _gl_angles(s, batch_shape, n_chunks, mag.shape[0], mag.device, generator, angles)
+        return s.pghi_gl_decode(mag, a, syn, T).reshape(batch_shape + (T * s.hop,))
 
     return run

@@ -152,6 +152,13 @@ def irfft_frames(
         n_fft = 2 * (n_bins - 1)
     impl = _resolve_impl(impl, n_fft)
     if impl == "fft":
+        if n_fft % 2 == 0 and n_bins == n_fft // 2 + 1:
+            # a real signal has no imaginary part at DC and nyquist: pocketfft
+            # and XLA ignore it, cuFFT's C2R leaves the result undefined (on
+            # an H100 at n_fft 8192 it moved frames by 6.5e-3 of their peak)
+            keep = torch.ones(n_bins, dtype=spec.real.dtype, device=spec.device)
+            keep[0] = keep[-1] = 0.0
+            spec = torch.complex(spec.real, spec.imag * keep)
         return torch.fft.irfft(spec, n=n_fft, dim=-1)
     A, B = _tables(_idft_matrices, spec.device, n_fft)
     return torch.matmul(spec.real, A) + torch.matmul(spec.imag, B)

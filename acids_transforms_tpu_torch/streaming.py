@@ -4,8 +4,9 @@
 The chain's state is explicit (``chain.init_state``) and a session is a loop
 over chunks of ``chain.step`` / ``chain.step_invert`` (a Python loop where the
 JAX package has ``lax.scan``).  Recognized ``[OverlapAdd, RealtimeSTFT(,
-Magnitude)]`` chains run whole sessions in one kernel instead
-(``ops/cuda/stream_step.py``)::
+Magnitude)]`` chains run whole sessions in one to three kernel launches
+instead, and ``pghi_gl`` sessions in a few launches a chunk over all sessions
+at once (``ops/cuda/stream_step.py``)::
 
     chain = OverlapAdd(1024, 256) + RealtimeSTFT(n_fft=1024, hop_length=256)
     y = scan_roundtrip(chain, x, chunk_size=4096)        # analysis + resynthesis
@@ -17,9 +18,10 @@ decision, the scans execute it):
 * ``backend="auto"`` takes a session kernel on a CUDA tensor whenever the
   chain and shape are covered, and the generic chunk scan on a CPU tensor
   (as the JAX package's ``auto`` does off the TPU).  A covered call whose
-  kernel is not ported yet (the ``pghi_gl`` sessions, ``sinebank``) raises
-  ``NotImplementedError`` on a CUDA tensor naming its ROADMAP item; a chain
-  the kernels do not cover structurally runs the generic scan.
+  kernel is not ported yet (``sinebank``) raises ``NotImplementedError`` on a
+  CUDA tensor naming its ROADMAP item; a chain that neither the JAX
+  package's overlap-add layouts nor the session's kernels cover (for one,
+  hop 250) runs the generic scan, as it does in the JAX package.
 * ``backend="fused"`` takes the session on either device (on the CPU its
   kernel wrapper runs the plain PyTorch version, like the JAX package's
   interpret mode) and raises ``ValueError`` when no session covers the call.
@@ -27,7 +29,7 @@ decision, the scans execute it):
 
 The TPU's batch caps and angle-buffer footprint gates
 (``dispatch_regions.json``) are TPU crossovers and are not carried over; the
-port's own table waits for ``regions.py`` (ROADMAP Queue 1 item 9b).
+port's own table waits for ``regions.py`` (ROADMAP Queue 1 item 9b(iii)).
 
 Random modes take one ``torch.Generator`` (``generator=``) where the JAX
 package takes a key; None means one seeded with 0 for the session.  The
@@ -58,8 +60,7 @@ __all__ = [
 
 #: sessions whose kernel comes with a later slice
 _UNPORTED_PLANS = {
-    "pghi_gl": "Queue 1 item 9b (kernel O, RT-PGHI + pinned-context GL)",
-    "sinebank": "Queue 1 item 9b (sinebank_stream, _sinebank_session)",
+    "sinebank": "Queue 1 item 9b(ii) (sinebank_stream, _sinebank_session)",
 }
 
 
@@ -140,8 +141,8 @@ def plan_forward(
         raise ValueError(
             "backend='fused' requested but the fused encode-session kernel "
             "cannot cover this call (needs a fresh-state "
-            "[OverlapAdd, RealtimeSTFT(, Magnitude)] chain with an "
-            "OLA-supported layout); use backend='auto' to fall back to "
+            "[OverlapAdd, RealtimeSTFT(, Magnitude)] chain with a "
+            "layout the session kernels cover); use backend='auto' to fall back to "
             "the generic scan"
         )
     return _decide("fused" if available else None, backend, device)
@@ -157,22 +158,22 @@ def plan_invert(
     device=None,
 ) -> str:
     """The :func:`scan_invert` dispatch decision, as data: ``"random"``,
-    ``"pghi"`` or ``"complex"`` (decode session kernels) or ``"generic"``; a
-    covered ``"pghi_gl"`` / ``"sinebank"`` session raises
+    ``"pghi"``, ``"pghi_gl"`` or ``"complex"`` (decode session kernels) or
+    ``"generic"``; a covered ``"sinebank"`` session raises
     ``NotImplementedError`` until its slice (see :func:`plan_forward`)."""
-    from .ops.cuda.stream_step import fused_random_invert_available
+    from .ops.cuda import stream_step as ss
 
     _check_backend("scan_invert", backend)
     parts = _session_parts(chain)
     plan = None
     if parts is not None:
         sub2, mag_t = parts
-        layout = fused_random_invert_available(sub2, chunk_frames)
-        if inversion_mode == "random" and layout:
-            plan = "random"
-        elif inversion_mode in ("pghi", "pghi_gl") and layout:
+        gates = {"random": ss.fused_random_invert_available, "pghi": ss.fused_pghi_invert_available,
+                 "pghi_gl": ss.fused_pghi_gl_invert_available}
+        if inversion_mode in gates and gates[inversion_mode](sub2, chunk_frames):
             plan = inversion_mode
-        elif inversion_mode is None and y_is_complex and mag_t is None and layout:
+        elif (inversion_mode is None and y_is_complex and mag_t is None
+              and ss.fused_complex_invert_available(sub2, chunk_frames)):
             plan = "complex"
         elif inversion_mode == "sinebank" and _same_framing(sub2):
             plan = "sinebank"
@@ -182,7 +183,7 @@ def plan_invert(
             "covers this call (needs an [OverlapAdd, RealtimeSTFT"
             "(, Magnitude)] chain with inversion_mode 'random', 'pghi', "
             "'pghi_gl' or 'sinebank' — or a complex spectrum with mode "
-            "None, 2-chain only — and an OLA-supported layout); use "
+            "None, 2-chain only — and a layout the session kernels cover); use "
             "backend='auto' to fall back to the generic scan"
         )
     return _decide(plan, backend, device)
@@ -202,22 +203,29 @@ def plan_roundtrip(
     device=None,
 ) -> str:
     """The :func:`scan_roundtrip` dispatch decision, as data: ``"complex"``,
-    ``"random"`` or ``"pghi"`` (session kernels) or ``"generic"``; a covered
-    ``"pghi_gl"`` / ``"sinebank"`` session raises ``NotImplementedError``
-    until its slice (see :func:`plan_forward`)."""
-    from .ops.cuda.stream_step import fused_forward_session_available, fused_roundtrip_available
+    ``"random"``, ``"pghi"`` or ``"pghi_gl"`` (session kernels) or
+    ``"generic"``; a covered ``"sinebank"`` session raises
+    ``NotImplementedError`` until its slice (see :func:`plan_forward`)."""
+    from .ops.cuda import stream_step as ss
 
     _check_backend("scan_roundtrip", backend)
     parts = _session_parts(chain)
     plan = None
     if parts is not None:
         sub2, mag_t = parts
-        layout = fused_roundtrip_available(sub2, chunk_size) and (
-            mag_t is None or fused_forward_session_available(sub2, chunk_size))
-        if inversion_mode is None and mag_t is None and layout:
-            plan = "complex"
-        elif inversion_mode in ("random", "pghi", "pghi_gl") and layout:
-            plan = inversion_mode
+        if mag_t is None:
+            # the two-chain's roundtrip sessions
+            gates = {None: ss.fused_roundtrip_available, "random": ss.fused_random_roundtrip_available,
+                     "pghi": ss.fused_pghi_roundtrip_available, "pghi_gl": ss.fused_pghi_gl_roundtrip_available}
+            covered = inversion_mode in gates and gates[inversion_mode](sub2, chunk_size)
+        else:
+            # the 3-chain: the magnitude encode, then the decode session
+            gates = {"random": ss.fused_random_invert_available, "pghi": ss.fused_pghi_invert_available,
+                     "pghi_gl": ss.fused_pghi_gl_invert_available}
+            covered = (inversion_mode in gates and ss.fused_forward_session_available(sub2, chunk_size)
+                       and gates[inversion_mode](sub2, chunk_size // sub2.transforms[1].hop_length))
+        if covered:
+            plan = "complex" if inversion_mode is None else inversion_mode
         elif (inversion_mode == "sinebank" and _same_framing(sub2)
               and chunk_size % sub2.transforms[1].hop_length == 0):
             plan = "sinebank"
@@ -227,7 +235,7 @@ def plan_roundtrip(
             "this call (needs an [OverlapAdd, RealtimeSTFT(, Magnitude)] "
             "chain with inversion_mode None, 'random', 'sinebank', 'pghi' "
             "or 'pghi_gl' — complex roundtrips 2-chain only — chunk_size "
-            "a hop multiple, an OLA-supported hop); use backend='auto' to "
+            "a hop multiple, a layout the kernels cover); use backend='auto' to "
             "fall back to the generic scan"
         )
     return _decide(plan, backend, device)
@@ -350,9 +358,11 @@ def scan_invert(
     the RT-PGHI recurrence and P's synthesis (``"pghi"``, Q), S (a complex
     spectrum); feature chains ``[..., Magnitude]`` run ``Magnitude.invert``
     on the whole session first (stateless and frame-local: equal to the
-    per-chunk application)."""
+    per-chunk application).  ``"pghi_gl"`` runs O: per chunk the seeded
+    recurrence and the projections, then P's synthesis."""
     from .ops.cuda.stream_step import (
         make_fused_complex_invert,
+        make_fused_pghi_gl_invert,
         make_fused_pghi_invert,
         make_fused_random_invert,
     )
@@ -363,10 +373,11 @@ def scan_invert(
     g = _session_generator(generator, y.device)
     if plan == "complex":
         return make_fused_complex_invert(_session_parts(chain)[0], chunk_frames)(y)
-    if plan in ("random", "pghi"):
+    if plan in ("random", "pghi", "pghi_gl"):
         sub2, mag_t = _session_parts(chain)
         ym = mag_t.invert(y) if mag_t is not None else y
-        maker = make_fused_random_invert if plan == "random" else make_fused_pghi_invert
+        maker = {"random": make_fused_random_invert, "pghi": make_fused_pghi_invert,
+                 "pghi_gl": make_fused_pghi_gl_invert}[plan]
         return maker(sub2, chunk_frames, generator=g)(ym)
 
     T = y.shape[-2]
@@ -402,11 +413,16 @@ def scan_roundtrip(
     the roundtrip is phaseless (the spectrum's magnitude is inverted);
     ``None`` keeps the complex spectrum.  On a CUDA tensor recognized chains
     run session kernels: L (complex), M (``"random"``), N (``"pghi"``: the
-    magnitude encode, the RT-PGHI recurrence, P's synthesis); a ``[...,
-    Magnitude]`` chain runs the magnitude encode, the Magnitude forward and
-    invert on the whole session, then P (``"random"``) or Q (``"pghi"``)."""
+    magnitude encode, the RT-PGHI recurrence, P's synthesis), O
+    (``"pghi_gl"``: the magnitude encode, then per chunk the seeded recurrence
+    and the projections, then P's synthesis); a ``[..., Magnitude]`` chain
+    runs the magnitude encode, the Magnitude forward and invert on the whole
+    session, then P (``"random"``), Q (``"pghi"``) or O's decode
+    (``"pghi_gl"``)."""
     from .ops.cuda.stream_step import (
         make_fused_magnitude_session,
+        make_fused_pghi_gl_invert,
+        make_fused_pghi_gl_roundtrip,
         make_fused_pghi_invert,
         make_fused_pghi_roundtrip,
         make_fused_random_invert,
@@ -420,14 +436,16 @@ def scan_roundtrip(
     g = _session_generator(generator, x.device)
     if plan == "complex":
         return make_fused_roundtrip(chain, chunk_size)(x)
-    if plan in ("random", "pghi"):
+    if plan in ("random", "pghi", "pghi_gl"):
         sub2, mag_t = _session_parts(chain)
         if mag_t is None:
-            maker = make_fused_random_roundtrip if plan == "random" else make_fused_pghi_roundtrip
+            maker = {"random": make_fused_random_roundtrip, "pghi": make_fused_pghi_roundtrip,
+                     "pghi_gl": make_fused_pghi_gl_roundtrip}[plan]
             return maker(chain, chunk_size, generator=g)(x)
         T_c = chunk_size // sub2.transforms[1].hop_length
         mags = mag_t.invert(mag_t.forward(make_fused_magnitude_session(sub2, chunk_size)(x)))
-        maker = make_fused_random_invert if plan == "random" else make_fused_pghi_invert
+        maker = {"random": make_fused_random_invert, "pghi": make_fused_pghi_invert,
+                 "pghi_gl": make_fused_pghi_gl_invert}[plan]
         return maker(sub2, T_c, generator=g)(mags)
 
     # states are mode-minimal: each stateful child allocates the carry of

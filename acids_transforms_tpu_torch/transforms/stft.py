@@ -10,17 +10,23 @@ item 8).
 
 ``RealtimeSTFT`` ported: the per-frame forward, the dual-window synthesis and
 the streaming inversion (``init_state`` / ``step_invert``) of the complex
-spectrum and of the modes ``keep_input``, ``random`` and ``pghi`` (causal
+spectrum and of the modes ``keep_input``, ``random``, ``pghi`` (causal
 RT-PGHI carrying two magnitude frames and one phase frame; ``pghi_exact`` maps
-to it, there is no heap online).  Its streaming modes ``pghi_gl`` and
-``sinebank`` (and their carried state) raise ``NotImplementedError`` until
-their slice (ROADMAP Queue 1 item 9b).
+to it, there is no heap online) and ``pghi_gl`` (the RT-PGHI seed polished by
+``gl_iterations`` windowed consistency projections with ``gl_context``
+committed frames pinned, optionally ``lookahead_frames`` of delayed commit).
+Its streaming mode ``sinebank`` (and its carried state) raises
+``NotImplementedError`` until its slice (ROADMAP Queue 1 item 9b(ii)).
 
 The PGHI modes work on any named window through its effective
 time-frequency ratio (``gamma``).  On a CUDA tensor ``pghi`` / ``pghi_bidir``
-launch the kernels of ``ops/cuda/pghi_kernel.py`` or raise; on a CPU tensor
-they run ``ops/pghi.py:pghi_scan`` and the ISTFT (both as the causal scan:
-the bidirectional order exists for the card).
+launch the kernels of ``ops/cuda/pghi_kernel.py`` where they cover the
+shape or the JAX package's structural gates hold (raising where a kernel's
+limit bites), and run the recurrence kernel or ``pghi_scan`` with the ISTFT
+elsewhere (``pghi_kernel.pghi_dispatch``), as the JAX package does on a TPU;
+on a CPU tensor they run ``ops/pghi.py:pghi_scan`` and
+the ISTFT (both as the causal scan: the bidirectional order exists for the
+card).
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ import numpy as np
 import torch
 
 from ..ops.fft import irfft_frames, istft, rfft_frames, stft as stft_op, taps_for_window
-from ..ops.framing import frame
+from ..ops.framing import frame, overlap_add
 from ..ops.griffinlim import griffin_lim
 from ..ops.pghi import pghi_heap_numpy, pghi_scan, random_angles
 from ..ops.windows import dual_window, get_window, window_gamma
@@ -41,11 +47,10 @@ __all__ = ["STFT", "RealtimeSTFT"]
 _UNPORTED_MODES = {"sinebank": "Queue 1 item 8 (needs ops/interp.py)"}
 #: streaming modes whose carried state comes with a later slice
 _UNPORTED_STREAM_MODES = {
-    "pghi_gl": "Queue 1 item 9b (pghi_gl_stream)",
-    "sinebank": "Queue 1 item 9b (sinebank_stream)",
+    "sinebank": "Queue 1 item 9b(ii) (sinebank_stream)",
 }
 #: streaming modes that carry the RT-PGHI frame history
-_PGHI_STREAM_MODES = ("pghi", "pghi_exact")
+_PGHI_STREAM_MODES = ("pghi", "pghi_exact", "pghi_gl")
 
 
 class STFT(AudioTransform):
@@ -213,7 +218,9 @@ class STFT(AudioTransform):
         if mode == "griffin_lim":
             return self.griffin_lim(mag, generator=generator, init_phase=init_phase)
         if mode in ("pghi", "pghi_bidir"):
-            if mag.is_cuda:
+            from ..ops.cuda.pghi_kernel import pghi_dispatch
+
+            if mag.is_cuda and pghi_dispatch(mode, self.n_fft, self.hop_length) == "fused":
                 from ..ops.cuda.pghi_kernel import pghi_invert_bidir, pghi_invert_fused
 
                 invert = pghi_invert_fused if mode == "pghi" else pghi_invert_bidir
@@ -271,9 +278,12 @@ class STFT(AudioTransform):
     ) -> torch.Tensor:
         """Peak-anchored PGHI phases of ``mag (..., T, F)`` (offline: central
         time stencil, no carried state).  On a CUDA tensor the recurrence runs
-        inside one kernel (or raises); on a CPU tensor ``pghi_scan`` serves."""
+        inside one kernel (or raises) where ``hop | n_fft`` with overlap >= 2
+        (``pghi_kernel.pghi_dispatch``); elsewhere ``pghi_scan`` serves."""
+        from ..ops.cuda.pghi_kernel import pghi_dispatch
+
         angles = self._angles(mag, generator, angles)
-        if mag.is_cuda:
+        if mag.is_cuda and pghi_dispatch("phases", self.n_fft, self.hop_length) == "phases":
             from ..ops.cuda.pghi_kernel import pghi_phases_fused
 
             return pghi_phases_fused(
@@ -360,11 +370,14 @@ class RealtimeSTFT(STFT):
     ``step_invert``) and mode-minimal: the complex, ``keep_input`` and
     ``random`` inversions carry nothing, so their state is an empty dict;
     ``pghi`` carries the RT-PGHI frame history (``mag_buffer (..., 2, F)``,
-    ``phase_buffer (..., F)``).  The eager ``invert`` keeps the state on
-    ``self``, and its ``keep_input`` / ``random`` calls keep the PGHI history
-    too, so a later eager switch to ``pghi`` starts from real context.
-    ``batch_size``, ``gl_iterations``, ``gl_context`` and ``lookahead_frames``
-    are the streaming ``pghi_gl`` polish's settings, kept for its slice.
+    ``phase_buffer (..., F)``), ``pghi_gl`` that and the pinned context
+    (``gl_mag`` / ``gl_phase (..., gl_context, F)``, with lookahead the pending
+    magnitudes ``la_mag (..., lookahead_frames, F)``).  The eager ``invert``
+    keeps the state on ``self``, and its ``keep_input`` / ``random`` calls
+    keep the PGHI history too, so a later eager switch to ``pghi`` starts from
+    real context.  ``gl_iterations`` (16), ``gl_context`` (``overlap - 1``)
+    and ``lookahead_frames`` (0) are the streaming ``pghi_gl`` polish's
+    settings; ``batch_size`` is kept for the reference's interface.
     """
 
     def __init__(
@@ -423,20 +436,29 @@ class RealtimeSTFT(STFT):
     # ------------------------------------------------------------- streaming
     def init_state(self, batch_shape: Tuple[int, ...] = (), mode: Optional[str] = None) -> Dict[str, torch.Tensor]:
         """Fresh streaming-inversion state: mode-minimal, so the complex,
-        ``keep_input`` and ``random`` inversions get an empty dict and
+        ``keep_input`` and ``random`` inversions get an empty dict,
         ``pghi`` / ``pghi_exact`` the RT-PGHI frame history (2 magnitude
-        frames, 1 phase frame, zeros).  ``mode=None`` resolves to the
-        configured ``inversion_mode``; the modes whose carry belongs to a
-        later slice raise."""
+        frames, 1 phase frame, zeros) and ``pghi_gl`` that history, the
+        ``gl_context`` pinned frames' magnitudes and phases and, with
+        lookahead, the ``lookahead_frames`` pending magnitudes.  ``mode=None``
+        resolves to the configured ``inversion_mode``; the modes whose carry
+        belongs to a later slice raise."""
         mode = self._resolve_mode(mode)
         self._refuse_unported(mode)
         if mode not in _PGHI_STREAM_MODES:
             return {}
         bs = tuple(batch_shape)
-        return {
-            "mag_buffer": torch.zeros(bs + (2, self.n_bins), device=self.device),
-            "phase_buffer": torch.zeros(bs + (self.n_bins,), device=self.device),
-        }
+
+        def zeros(rows=None):
+            return torch.zeros(bs + (() if rows is None else (rows,)) + (self.n_bins,), device=self.device)
+
+        state = {"mag_buffer": zeros(2), "phase_buffer": zeros()}
+        if mode == "pghi_gl":
+            state["gl_mag"] = zeros(self.gl_context)
+            state["gl_phase"] = zeros(self.gl_context)
+            if self.lookahead_frames:
+                state["la_mag"] = zeros(self.lookahead_frames)
+        return state
 
     def reset(self, batch_shape: Tuple[int, ...] = (), mode: Optional[str] = None) -> None:
         self._state = self.init_state(tuple(batch_shape), mode=mode)
@@ -489,13 +511,15 @@ class RealtimeSTFT(STFT):
         """Frames ``(..., T, n_fft)`` from magnitudes ``(..., T, F)``:
         ``keep_input`` takes ``phase`` or the last forward's, ``random``
         draws from ``generator`` (none: one derived from ``seed``), ``pghi``
-        / ``pghi_exact`` run one streaming RT-PGHI step from the state kept
-        on ``self`` (``angles`` pins its silent bins' phases)."""
+        / ``pghi_exact`` / ``pghi_gl`` run one streaming step from the state
+        kept on ``self`` (``angles`` pins the RT-PGHI seed's silent bins'
+        phases)."""
         mode = self._resolve_mode(inversion_mode)
         self._refuse_unported(mode)
         if mode in _PGHI_STREAM_MODES:
-            state = self._eager_state(mag, mode="pghi")
-            self._state, y = self.invert_stream(state, mag, "pghi", generator=generator, angles=angles)
+            mode = "pghi_gl" if mode == "pghi_gl" else "pghi"
+            state = self._eager_state(mag, mode=mode)
+            self._state, y = self.invert_stream(state, mag, mode, generator=generator, angles=angles)
             return y
         if mode == "keep_input":
             phase = self._recall_phase(mag) if phase is None else phase
@@ -522,11 +546,14 @@ class RealtimeSTFT(STFT):
         """Pure streaming inversion step: ``(state, spec_or_mag (..., T, F))
         -> (state, frames (..., T, n_fft))``.  ``pghi`` / ``pghi_exact`` run
         :meth:`pghi_stream` (``angles`` pins the silent bins' phases) and
-        carry the history of the spectrum they build."""
+        carry the history of the spectrum they build; ``pghi_gl`` runs
+        :meth:`pghi_gl_stream`."""
         if x.is_complex():
             return self._update_buffers(state, x), self.invert(x)
         mode = self._resolve_mode(inversion_mode)
         self._refuse_unported(mode)
+        if mode == "pghi_gl":
+            return self.pghi_gl_stream(state, x, generator=generator, angles=angles)
         if mode in _PGHI_STREAM_MODES:
             spec = torch.polar(x, self.pghi_stream(state, x, generator=generator, angles=angles))
             return self._update_buffers(state, spec), self.invert(spec)
@@ -555,6 +582,83 @@ class RealtimeSTFT(STFT):
             prev_mag=state["mag_buffer"], prev_phase=state["phase_buffer"],
             time_stencil="backward", angles=self._angles(mag, generator, angles),
         )
+
+    def pghi_gl_stream(
+        self,
+        state: Dict[str, torch.Tensor],
+        mag: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        angles: Optional[torch.Tensor] = None,
+    ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """Streaming PGHI with a Griffin-Lim polish, one chunk ``(..., T, F)``
+        -> ``(state, frames (..., T, n_fft))``.
+
+        With ``lookahead_frames = la`` the ``la`` pending magnitudes of the
+        previous chunk lead this one's.  :meth:`pghi_stream` seeds the phases
+        of those ``T + la`` frames (``angles``, or the draws, cover them all);
+        ``gl_iterations`` windowed consistency projections then refine them
+        on the grid ``[gl_context committed frames; the T + la frames]``.  The
+        context rows stay pinned to their committed phases, and the last
+        ``min(overlap - 1 - la, T)`` rows committed now keep the seed (their
+        overlap-add lacks the right context, where the projection re-anchors
+        them worse than the seed).  A projection divides the overlap-add by
+        ``overlap``, not by the window envelope.  The first ``T`` frames are
+        committed: the carries come from them, and the last ``la`` magnitudes
+        re-enter with the next chunk."""
+        if "gl_mag" not in state:
+            raise KeyError(
+                "streaming state has no pinned-context buffers: create it with "
+                "init_state(batch_shape, mode='pghi_gl') (states are mode-minimal)"
+            )
+        ctx = self.gl_context
+        la = self.lookahead_frames
+        T_out = mag.shape[-2]
+        if la:
+            mag = torch.cat([state["la_mag"], mag], dim=-2)
+        ph0 = self.pghi_stream(state, mag, generator=generator, angles=angles)
+        mag_ext = torch.cat([state["gl_mag"], mag], dim=-2)
+        ph_ext = torch.cat([state["gl_phase"], ph0], dim=-2)
+        keep = self.gl_keep_rows(mag_ext.shape[-2], T_out, mag.device)[:, None]
+        phase = ph_ext
+        for _ in range(self.gl_iterations):
+            phase = torch.where(keep, ph_ext, self._gl_project(mag_ext, phase))
+        ph = phase[..., ctx:, :]
+        commit_mag, commit_ph = mag[..., :T_out, :], ph[..., :T_out, :]
+        spec = torch.polar(commit_mag, commit_ph)
+        new_state = self._update_buffers(state, spec)
+        if la:
+            new_state["la_mag"] = mag[..., T_out:, :]
+        new_state["gl_mag"] = torch.cat([state["gl_mag"], commit_mag], dim=-2)[..., -ctx:, :]
+        new_state["gl_phase"] = torch.cat([state["gl_phase"], commit_ph], dim=-2)[..., -ctx:, :]
+        return new_state, self.invert(spec)
+
+    def gl_frozen(self, T_out: int) -> Tuple[int, int]:
+        """The grid rows ``[lo, hi)`` of a ``pghi_gl`` chunk of ``T_out``
+        committed frames that keep the seed (the boundary freeze): the last
+        ``min(overlap - 1 - lookahead_frames, T_out)`` committed rows, counted
+        from the grid's first (pinned) row."""
+        overlap = max(self.n_fft // self.hop_length, 1)
+        freeze_n = max(0, min(overlap - 1 - self.lookahead_frames, T_out))
+        hi = self.gl_context + T_out
+        return hi - freeze_n, hi
+
+    def gl_keep_rows(self, n_rows: int, T_out: int, device=None) -> torch.Tensor:
+        """The rows of a ``pghi_gl`` grid of ``n_rows`` frames that the polish
+        leaves alone, ``(n_rows,)`` bool: the ``gl_context`` pinned rows and
+        the frozen rows of :meth:`gl_frozen`."""
+        lo, hi = self.gl_frozen(T_out)
+        idx = torch.arange(n_rows, device=device)
+        return (idx < self.gl_context) | ((idx >= lo) & (idx < hi))
+
+    def _gl_project(self, mag: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
+        """One windowed consistency projection of the grid ``(..., Tx, F)``:
+        the phases of ``STFT(OLA(iSTFT(mag e^{i phase})) / overlap)`` re-framed
+        at the grid's own frames (no trim, no reflection)."""
+        overlap = max(self.n_fft // self.hop_length, 1)
+        frames = irfft_frames(torch.polar(mag, phase), n_fft=self.n_fft, impl=self.impl) * self.inv_window
+        y = overlap_add(frames, self.hop_length) / overlap
+        fr = frame(y, self.n_fft, self.hop_length, -1)[..., : mag.shape[-2], :]
+        return torch.angle(rfft_frames(fr * self.window, impl=self.impl))
 
     def _update_buffers(self, state: Dict[str, torch.Tensor], spec: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Carry the trailing 2 magnitude frames and the last phase frame

@@ -16,9 +16,15 @@ concurrent mono sessions of 4 s (``--streams``): encode, the complex and the
 random roundtrip, the random decode and the [.., Magnitude] random roundtrip,
 each as one whole-session kernel, then (phase 4g) the RT-PGHI roundtrip and
 decode and the [.., Magnitude] RT-PGHI roundtrip of that chain in pghi mode
-and of OverlapAdd + RealtimeDGT, and the complex decode, all held against the
-generic chunk scan.  It shows by the launch counters that each path went
-through its kernels, times them, and prints
+and of OverlapAdd + RealtimeDGT, the complex decode, and the same routes in
+``pghi_gl`` (the RT-PGHI seed and 16 pinned-context Griffin-Lim projections a
+chunk; lookahead 4 too), all held against the generic chunk scan, and (phase
+4h) the dispatch outside the JAX package's gates: shapes no kernel covers
+(``STFT(1024, 300)``, ``RealtimeSTFT(1000, 250)``) on the eager route against
+the same calls on the CPU, and shapes the port's kernels take (1200/300) on
+the kernels.  It shows by
+the launch counters that each path went through its kernels, times them, and
+prints
 
 * a line with one JSON object ``{"kernels": [...]}`` (per kernel: launches on
   the main path, max error against the plain version, its time (``ms``, also
@@ -82,6 +88,26 @@ def time_ms(fn, repeats: int, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def host_and_device_ms(fn, n: int):
+    """Per call of ``fn`` (``n`` calls back to back): the host's time to
+    enqueue it, and the card's time to run it with the calls queued behind a
+    sleep kernel, so that the card never waits for the host (None where the
+    host took longer than the sleep)."""
+    fn()
+    torch.cuda.synchronize()
+    e_s, e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    e_s.record()
+    torch.cuda._sleep(400_000_000)      # about 0.2 s at the card's clock
+    e0.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = 1e3 * (time.perf_counter() - t0)
+    e1.record()
+    torch.cuda.synchronize()
+    return host / n, (e0.elapsed_time(e1) / n if host < e_s.elapsed_time(e0) else None)
 
 
 def nvidia_smi_line() -> str:
@@ -797,7 +823,365 @@ def stream_pghi_phase(args, dev, errs, counts, stream):
             log(f"    B={b:3d} {name:20s}: {k_ms:9.3f} ms / {g_ms:9.3f} ms ({g_ms / k_ms:.2f}x)")
     log("  RT-PGHI stream quality: " + json.dumps(
         {k: [round(v, 6) for v in val] if isinstance(val, tuple) else round(val, 6) for k, val in quality.items()}))
-    return dict(mag=main_mag, angles=main_ang, chain=h_chain, spec=spec)
+    return dict(mag=main_mag, angles=main_ang, chain=h_chain, spec=spec, sc_dec_of=sc_dec_of,
+                dec_mags=dec_mags, quality=quality)
+
+
+def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
+    """Phase 4g, ``pghi_gl``: session O on phase 4f's 64 mono sessions of 43 x
+    4096 samples, through the entry points, for OverlapAdd(1024, 256) +
+    RealtimeSTFT(1024, 256, hann, inversion_mode="pghi_gl") and the default
+    OverlapAdd(1024, 256) + RealtimeDGT(1024, 256) in ``pghi_gl``
+    (``gl_iterations`` 16, ``gl_context`` 3, the defaults):
+
+    * ``scan_roundtrip(pghi_gl)`` (the magnitude encode, per chunk one seeded
+      recurrence and 16 projections of two launches, P's synthesis),
+      ``scan_invert(pghi_gl)`` of the offline magnitudes and the 3-chain
+      ``[.., Magnitude]`` roundtrip, each with every launch counter at 0
+      before and read after, held against the generic chunk scan under a
+      generator in the same state by spectral convergence within ``1.1 s +
+      1e-3`` (``bench.py:566-592``, ``:640-675``); the hann roundtrip again
+      at lookahead 4, with the ``pghi`` figure of the same sessions beside;
+    * each new kernel against its plain version on identical inputs at the
+      main shape, 512/128 and 2048/512, lookahead 0 and 4: the seeded
+      recurrence (phases bit-identical, or ``|X| (cos, sin)`` within 1e-4 of
+      the largest), the projection (pinned and frozen rows included, within
+      1e-4 of the largest ``|X| (cos, sin)``; its synthesis alone within 2e-5
+      relative) and the whole session against the plain session (spectral
+      convergence within ``1.1 s + 1e-3``, finite);
+    * the hann roundtrip's and decode's times beside the generic scan's at B
+      = 1, 8 and 64.
+
+    Returns what phase 5 needs."""
+    from acids_transforms_tpu_torch import streaming
+    from acids_transforms_tpu_torch import transforms as T
+
+    ss, sx, route, generic, sgen = (stream[k] for k in ("ss", "sx", "route", "generic", "sgen"))
+    SB, SL, CH = sx.shape[0], STREAM_LEN, STREAM_CHUNK
+    T_C = CH // HOP
+    n_chunks = SL // CH
+    delay = N_FFT - HOP
+    log(f"[4g] streaming pghi_gl (session O) on {SB} mono sessions of {SL} samples, chunks of {CH}")
+
+    def gl_chain(kind, la=0, n_fft=N_FFT, hop=HOP):
+        rt_t = T.RealtimeDGT if kind == "dgt" else T.RealtimeSTFT
+        return T.OverlapAdd(n_fft, hop) + rt_t(n_fft=n_fft, hop_length=hop, inversion_mode="pghi_gl",
+                                               lookahead_frames=la)
+
+    h_chain, d_chain = gl_chain("hann"), gl_chain("dgt")
+    iters = h_chain[1].gl_iterations
+
+    def expect(encode):
+        d = {"rt_pghi_seeded": n_chunks, "gl_project_synthesis": n_chunks * iters,
+             "gl_project_analysis": n_chunks * iters, "session_random_decode": 1}
+        return dict(d, session_magnitude=1) if encode else d
+
+    win = torch.hann_window(N_FFT, device=dev)
+
+    def sc_roundtrip(x, extra=0, n_fft=N_FFT, hop=HOP, length=None):
+        """Spectral convergence of a roundtrip's output against its input,
+        after the ``(overlap - 1 + extra) hop`` delay (``bench.py:566-575``)."""
+        w = win if n_fft == N_FFT else torch.hann_window(n_fft, device=dev)
+        n = x.shape[-1] if length is None else length
+        d = n_fft - hop + extra * hop
+
+        def spec(v):
+            return torch.stft(v, n_fft, hop, window=w, center=True, pad_mode="reflect",
+                              return_complex=True).abs()
+        ref = spec(x[..., : n - d])
+
+        def sc(y):
+            m = spec(y[..., d:n])
+            k = min(m.shape[-1], ref.shape[-1]) - 2
+            return (torch.linalg.norm(m[..., 2:k] - ref[..., 2:k]) / torch.linalg.norm(ref[..., 2:k])).item()
+        return sc
+
+    quality, g_times = {}, {}
+
+    def sc_pair(label, kernel_fn, generic_fn, launches, sc, seed, key=None):
+        y1 = route(label, lambda: kernel_fn(sgen(seed)), launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y2 = generic(label, lambda: generic_fn(sgen(seed)))
+        g_ms = 1e3 * (time.perf_counter() - t0)
+        s1, s2 = sc(y1), sc(y2)
+        log(f"    kernel route vs generic scan (same seed; the scan {g_ms:.0f} ms): rel {rel_err(y1, y2):.3e}; "
+            f"spectral convergence kernel {s1:.5f}, generic {s2:.5f} (must be <= {1.1 * s2 + 1e-3:.5f})")
+        require(tuple(y1.shape) == tuple(y2.shape) and torch.isfinite(y1).all().item(), f"{label}: bad output")
+        require(s1 <= 1.1 * s2 + 1e-3, f"{label}: converges worse than the generic scan")
+        if key is not None:
+            g_times[key] = g_ms
+        return s1, s2
+
+    sc_rt = sc_roundtrip(sx)
+    for name, chain, seed in (("hann", h_chain, 110), ("dgt", d_chain, 120)):
+        rt = chain[1]
+        f_chain = chain + T.Magnitude(mode="unipolar", contrast="log1p", mel=False, n_fft=N_FFT)
+        # the eager step on the card: the pinned-context carry
+        st = chain.init_state((2,))
+        st, fr = chain.step(st, sx[:2, :CH])
+        st, y_e = chain.step_invert(st, fr.abs(), generator=sgen(seed))
+        require(torch.isfinite(y_e).all().item()
+                and set(st[1]) == {"mag_buffer", "phase_buffer", "gl_mag", "gl_phase"},
+                f"{name}: the eager pghi_gl step failed")
+        quality[f"sc_{name}_roundtrip"] = sc_pair(
+            f"{name} pghi_gl roundtrip: scan_roundtrip(pghi_gl)",
+            lambda g: streaming.scan_roundtrip(chain, sx, CH, "pghi_gl", generator=g),
+            lambda g: streaming.scan_roundtrip(chain, sx, CH, "pghi_gl", generator=g, backend="generic"),
+            expect(True), sc_rt, seed + 1, key=(f"{name} pghi_gl roundtrip", SB))
+        mags = rt_stream["dec_mags"][name]
+        quality[f"sc_{name}_decode"] = sc_pair(
+            f"{name} pghi_gl decode: scan_invert(pghi_gl) of {tuple(mags.shape)} offline magnitudes",
+            lambda g: streaming.scan_invert(chain, mags, T_C, "pghi_gl", generator=g),
+            lambda g: streaming.scan_invert(chain, mags, T_C, "pghi_gl", generator=g, backend="generic"),
+            expect(False), rt_stream["sc_dec_of"](mags, rt.window), seed + 2, key=(f"{name} pghi_gl decode", SB))
+        quality[f"sc_{name}_3chain"] = sc_pair(
+            f"{name} 3-chain [.., Magnitude] pghi_gl roundtrip",
+            lambda g: streaming.scan_roundtrip(f_chain, sx, CH, "pghi_gl", generator=g),
+            lambda g: streaming.scan_roundtrip(f_chain, sx, CH, "pghi_gl", generator=g, backend="generic"),
+            expect(True), sc_rt, seed + 3)
+    la_chain = gl_chain("hann", 4)
+    quality["sc_hann_roundtrip_la4"] = sc_pair(
+        "hann pghi_gl roundtrip, lookahead 4", 
+        lambda g: streaming.scan_roundtrip(la_chain, sx, CH, "pghi_gl", generator=g),
+        lambda g: streaming.scan_roundtrip(la_chain, sx, CH, "pghi_gl", generator=g, backend="generic"),
+        expect(True), sc_roundtrip(sx, extra=4), 131)
+    pq = rt_stream["quality"]
+    log("  pghi_gl against pghi on the same sessions (kernel routes; spectral convergence): "
+        + ", ".join(f"{k} pghi_gl {quality[k][0]:.5f} / pghi {pq[k][0]:.5f}"
+                    for k in ("sc_hann_roundtrip", "sc_hann_decode", "sc_dgt_roundtrip", "sc_dgt_decode"))
+        + f"; hann roundtrip at lookahead 4 {quality['sc_hann_roundtrip_la4'][0]:.5f}")
+
+    # each new kernel against its plain version on identical inputs
+    def unit(mag, phase):
+        ph = phase.double()
+        return torch.stack([mag * torch.cos(ph), mag * torch.sin(ph)]) / mag.abs().max().clamp_min(1e-30)
+
+    def check_kernels(label, chain, x, chunk, seed):
+        rt = chain[1]
+        n_fft, hop = rt.n_fft, rt.hop_length
+        ov, Fb, T_c = n_fft // hop, n_fft // 2 + 1, chunk // hop
+        ctx, la = rt.gl_context, rt.lookahead_frames
+        Tt = T_c + la
+        B = x.shape[0]
+        g = sgen(seed)
+        mag = ss.make_fused_magnitude_session(chain, chunk)(x)
+        # the seeded recurrence: chunk 1's T_c + la frames after chunk 0's carries
+        prev, m = mag[:, T_c - 2: T_c].contiguous(), mag[:, T_c: T_c + Tt].contiguous()
+        pp = (2 * torch.rand((B, Fb), generator=g, device=dev) - 1) * math.pi
+        a = ss.session_angles((B,), 1, Tt, Fb, dev, g)
+        r_args = (rt.gamma, n_fft, hop, rt.tolerance, Tt)
+        ph_k = ss.rt_pghi_phases(m, a, *r_args, prev_mag=prev, prev_phase=pp)
+        ph_p = ss.rt_pghi_phases_reference(m, a, *r_args, prev_mag=prev, prev_phase=pp)
+        e_rt = (unit(m, ph_k) - unit(m, ph_p)).abs().max().item()
+        differ = (ph_k != ph_p).float().mean().item()
+        # one projection of the grid [ctx pinned; those frames; overlap - 1 zero]
+        tail = mag.new_zeros((B, ov - 1, Fb))
+        gm = torch.cat([mag[:, T_c - ctx: T_c], m, tail], 1).contiguous()
+        gp = torch.cat([(2 * torch.rand((B, ctx, Fb), generator=g, device=dev) - 1) * math.pi, ph_k, tail],
+                       1).contiguous()
+        lo, hi = rt.gl_frozen(T_c)
+        syn = ss._syn_basis(rt.inv_window, float(ov), n_fft, hop)
+        WC, WS = ss._ana_basis(rt.window, n_fft, ss._k_analysis(n_fft))
+        y_k = ss._launch_decode(gm, gp, syn, n_fft, hop, rows=ss.PROJECT_SYN_ROWS, name="gl_project_synthesis")
+        y_p = ss._synthesize(gm * torch.cos(gp), gm * torch.sin(gp), rt.inv_window, float(ov), n_fft, hop,
+                             gm.shape[1])
+        p_k = ss.gl_project(gm, gp.clone(), syn, rt.inv_window, rt.window, WC, WS, n_fft, hop, ctx, lo, hi)
+        p_p = ss.gl_project_reference(gm, gp, rt.inv_window, rt.window, n_fft, hop, ctx, lo, hi)
+        e_syn, e_pr = rel_err(y_k, y_p), (unit(gm, p_k) - unit(gm, p_p)).abs().max().item()
+        kept = torch.equal(p_k[:, :ctx], gp[:, :ctx]) and torch.equal(p_k[:, lo:hi], gp[:, lo:hi])
+        # the whole session against the plain session on the same magnitudes and angles
+        n_ch = mag.shape[1] // T_c
+        ang = ss.session_angles((B,), n_ch, Tt, Fb, dev, g)
+        y_s = ss.make_fused_pghi_gl_roundtrip(chain, chunk, angles=ang)(x)
+        y_sp = ss.session_pghi_gl_reference(mag, ang, rt, float(chain[0].gain_compensation), T_c, mag.shape[1])
+        torch.cuda.synchronize()
+        sc = sc_roundtrip(x, extra=la, n_fft=n_fft, hop=hop)
+        s_k, s_p = sc(y_s), sc(y_sp)
+        log(f"  kernels vs plain, {label}: seeded recurrence |X| (cos, sin)(phase) off by {e_rt:.3e} (tol "
+            f"1e-04; {100 * differ:.4f}% of bins differ); projection synthesis rel {e_syn:.3e} (tol 2e-05), "
+            f"projection {e_pr:.3e} (tol 1e-04), pinned and frozen rows kept: {kept}; session vs plain session "
+            f"rel {rel_err(y_s, y_sp):.3e}, spectral convergence {s_k:.5f} / {s_p:.5f} (must be <= "
+            f"{1.1 * s_p + 1e-3:.5f})")
+        for what, out in (("recurrence", ph_k), ("synthesis", y_k), ("projection", p_k), ("session", y_s)):
+            require(torch.isfinite(out).all().item(), f"{what} {label}: not finite")
+        require(y_s.shape == y_sp.shape and p_k.shape == gp.shape, f"{label}: shapes")
+        require(e_rt <= 1e-4 and e_syn <= 2e-5 and e_pr <= 1e-4 and kept and s_k <= 1.1 * s_p + 1e-3,
+                f"{label}: an O kernel disagrees with its plain version")
+        errs["RTs"] = max(errs.get("RTs", 0.0), e_rt)
+        errs["Osyn"] = max(errs.get("Osyn", 0.0), abs_err(y_k, y_p))
+        errs["Oana"] = max(errs.get("Oana", 0.0), e_pr)
+        return dict(mag=mag, m=m, prev=prev, pp=pp, a=a, gm=gm, gp=gp, lo=lo, hi=hi, syn=syn, WC=WC, WS=WS,
+                    y=y_k, rt=rt)
+
+    main = check_kernels(f"main shape hann {SB} x {SL}", h_chain, sx, CH, 140)
+    check_kernels(f"main shape dgt, lookahead 4 {SB} x {SL}", gl_chain("dgt", 4), sx, CH, 141)
+    check_kernels(f"main shape hann, lookahead 4 {SB} x {SL}", la_chain, sx, CH, 142)
+    small3, small2 = sx[:3, :20000].contiguous(), sx[:2, :30000].contiguous()
+    for la in (0, 4):
+        check_kernels(f"512/128 hann, lookahead {la}, 3 x 20000 (ragged)", gl_chain("hann", la, 512, 128),
+                      small3, 2048, 143 + la)
+        check_kernels(f"2048/512 dgt, lookahead {la}, 2 x 30000 (ragged)", gl_chain("dgt", la, 2048, 512),
+                      small2, 4096, 144 + la)
+
+    # the routes through the entry points beside the generic scan, B = 1, 8, 64
+    log("  route times (CUDA events around the entry point; kernel route median of 3, generic scan one run)")
+    route_ms = {}
+    dm = rt_stream["dec_mags"]["hann"]
+    for b in sorted({1, 8, SB}):
+        xb, mb = sx[:b], dm[:b]
+        rows = (
+            ("hann pghi_gl roundtrip", lambda g: streaming.scan_roundtrip(h_chain, xb, CH, "pghi_gl", generator=g),
+             lambda g: streaming.scan_roundtrip(h_chain, xb, CH, "pghi_gl", generator=g, backend="generic")),
+            ("hann pghi_gl decode", lambda g: streaming.scan_invert(h_chain, mb, T_C, "pghi_gl", generator=g),
+             lambda g: streaming.scan_invert(h_chain, mb, T_C, "pghi_gl", generator=g, backend="generic")),
+        )
+        for name, kfn, gfn in rows:
+            k_ms = time_ms(lambda: kfn(sgen(199)), 3, 1)
+            g_ms = g_times[(name, b)] if (name, b) in g_times else time_ms(lambda: gfn(sgen(199)), 1, 0)
+            route_ms[(name, b)] = (k_ms, g_ms)
+            log(f"    B={b:3d} {name:22s}: {k_ms:9.3f} ms / {g_ms:9.3f} ms ({g_ms / k_ms:.2f}x)")
+    log("  pghi_gl stream quality: " + json.dumps(
+        {k: [round(v, 6) for v in val] for k, val in quality.items()}))
+    return main
+
+
+def structure_phase(dev, mono, stream, wrappers, errs):
+    """Phase 4h: the dispatch at shapes outside the JAX package's gates.
+
+    * Shapes that neither the JAX package's gates nor the port's kernels
+      cover run the eager route on the card, as the JAX package runs them on
+      a TPU, with no kernel launch, and match the same call on a CPU tensor:
+      ``STFT(1024, 300)`` (hop does not divide n_fft) in ``pghi`` within 1e-4
+      relative (``pghi_scan`` and the ISTFT, float32 in another order on the
+      two devices) and in ``pghi_gl`` by spectral convergence within ``1.1 s
+      + 1e-3`` of the CPU's (its Griffin-Lim loop is a chaotic map that
+      amplifies the seed's rounding differences: tests/test_gl_parity.py
+      measures 1e-7 -> 1.3e-4 in five iterations, and the default runs 32);
+      the ``OverlapAdd(1000, 250) + RealtimeSTFT(1000, 250)`` session (hop %
+      4 != 0 and no JAX layout: the generic scan; encode and complex
+      roundtrip within 1e-4 of the CPU's).
+    * Shapes whose layout the JAX package refuses but the port's kernels take
+      stay on the kernels: ``STFT(1200, 300)`` in ``pghi`` launches K (the
+      recurrence and the synthesis; K against its plain versions there as in
+      phase 3), and the ``OverlapAdd(1200, 300) + RealtimeSTFT(1200, 300)``
+      sessions launch L (complex roundtrip, within 1e-4 of the CPU's generic
+      scan), N (``pghi``) and O (``pghi_gl``), each against the card's
+      generic scan under a generator in the same state by spectral
+      convergence within ``1.1 s + 1e-3``."""
+    from acids_transforms_tpu_torch import streaming
+    from acids_transforms_tpu_torch import transforms as T
+    from acids_transforms_tpu_torch.ops.cuda import pghi_kernel as pk
+
+    sgen, route, generic = stream["sgen"], stream["route"], stream["generic"]
+    log("[4h] the dispatch outside the JAX package's gates: the eager route where no kernel covers the shape, "
+        "the kernels where they do")
+
+    def zero():
+        for w in wrappers:
+            w.reset_launches()
+
+    def launched():
+        return sum(sum(w.launches.values()) for w in wrappers)
+
+    x = mono[:4, :44100].contiguous()
+    for mode in ("pghi", "pghi_gl"):
+        st_c = T.STFT(n_fft=1024, hop_length=300, inversion_mode=mode)
+        st_p = T.STFT(n_fft=1024, hop_length=300, inversion_mode=mode, device="cpu")
+        mag = st_c(x).abs()
+        ang = 2 * math.pi * torch.rand(mag.shape, generator=sgen(150), device=dev)
+        zero()
+        y_c = st_c.invert(mag, angles=ang)
+        torch.cuda.synchronize()
+        n_l = launched()
+        y_p = st_p.invert(mag.cpu(), angles=ang.cpu())
+
+        def sc(y):
+            R = st_p(y.cpu()).abs()
+            n = min(R.shape[-2], mag.shape[-2])
+            return (torch.linalg.norm(R[:, :n] - mag.cpu()[:, :n]) / torch.linalg.norm(mag.cpu()[:, :n])).item()
+        s_c, s_p = sc(y_c), sc(y_p)
+        e = rel_err(y_c.cpu(), y_p)
+        need = "rel <= 1e-04" if mode == "pghi" else f"spectral convergence <= {1.1 * s_p + 1e-3:.5f}"
+        log(f"  STFT(1024, 300) {mode}: launches {n_l}; card vs CPU rel {e:.3e}, spectral convergence "
+            f"{s_c:.5f} / {s_p:.5f} (must be {need})")
+        require(n_l == 0 and y_c.shape == y_p.shape and torch.isfinite(y_c).all().item(),
+                f"STFT(1024, 300) {mode}: launched a kernel or bad output")
+        ok = e <= 1e-4 if mode == "pghi" else s_c <= 1.1 * s_p + 1e-3
+        require(ok, f"STFT(1024, 300) {mode}: the card's eager route differs from the CPU's")
+    xs = mono[:4, :40000].contiguous()
+    c_c = T.OverlapAdd(1000, 250) + T.RealtimeSTFT(n_fft=1000, hop_length=250)
+    c_p = T.OverlapAdd(1000, 250, device="cpu") + T.RealtimeSTFT(n_fft=1000, hop_length=250, device="cpu")
+    require(streaming.plan_roundtrip(c_c, tuple(xs.shape), 2000, device=dev) == "generic"
+            and streaming.plan_forward(c_c, tuple(xs.shape), 2000, device=dev) == "generic",
+            "RealtimeSTFT(1000, 250) must plan the generic scan")
+    zero()
+    y_c = streaming.scan_roundtrip(c_c, xs, 2000)
+    f_c, _ = streaming.scan_forward(c_c, xs, 2000)
+    torch.cuda.synchronize()
+    n_l = launched()
+    y_p = streaming.scan_roundtrip(c_p, xs.cpu(), 2000)
+    f_p, _ = streaming.scan_forward(c_p, xs.cpu(), 2000)
+    e_y, e_f = rel_err(y_c.cpu(), y_p), crel(f_c.cpu(), f_p)
+    log(f"  OverlapAdd(1000, 250) + RealtimeSTFT(1000, 250) session: launches {n_l}; card vs CPU: complex "
+        f"roundtrip rel {e_y:.3e}, encode rel {e_f:.3e} (tol 1e-04)")
+    require(n_l == 0 and e_y <= 1e-4 and e_f <= 1e-4, "RealtimeSTFT(1000, 250): the card differs from the CPU")
+
+    # 1200 / 300: no JAX layout (neither n_fft nor hop a multiple of 128), hop % 4 == 0
+    n_fft, hop, chunk = 1200, 300, 2400
+    st = T.STFT(n_fft=n_fft, hop_length=hop, inversion_mode="pghi")
+    mag = st(x).abs()
+    ang = 2 * math.pi * torch.rand(mag.shape, generator=sgen(151), device=dev)
+    require(pk.pghi_dispatch("pghi", n_fft, hop) == "fused", "STFT(1200, 300) must dispatch to K")
+    zero()
+    y_k = st.invert(mag, angles=ang)
+    torch.cuda.synchronize()
+    got, n_l = {k: v for k, v in pk.launches.items() if v}, launched()
+    y_f = pk.pghi_invert_fused(mag, st.gamma, n_fft, hop, st.inv_window, tolerance=st.tolerance, angles=ang)
+    log(f"  STFT(1200, 300) pghi: launches {got}; the same as pghi_invert_fused: {torch.equal(y_k, y_f)}")
+    require(got == {"pghi_phases": 1, "pghi_synthesize": 1} and n_l == 2 and torch.equal(y_k, y_f),
+            "STFT(1200, 300) pghi must run K")
+    check_pghi("1200/300", mag, n_fft, hop, st.inv_window, st.gamma, 152, errs)
+    xs = mono[:4, :8 * chunk].contiguous()
+    chain = T.OverlapAdd(n_fft, hop) + T.RealtimeSTFT(n_fft=n_fft, hop_length=hop)
+    c_p = T.OverlapAdd(n_fft, hop, device="cpu") + T.RealtimeSTFT(n_fft=n_fft, hop_length=hop, device="cpu")
+    n_ch = xs.shape[-1] // chunk
+    y_c = route("1200/300 complex roundtrip", lambda: streaming.scan_roundtrip(chain, xs, chunk),
+                {"session_roundtrip": 1}, main=False)
+    y_p = streaming.scan_roundtrip(c_p, xs.cpu(), chunk)
+    e_y = rel_err(y_c.cpu(), y_p)
+    log(f"    the session vs the CPU's generic scan: rel {e_y:.3e} (tol 1e-04)")
+    require(e_y <= 1e-4, "1200/300 complex roundtrip: the session differs from the generic scan")
+    sw = torch.hann_window(n_fft, device=dev)
+
+    def sc(y, extra=0):
+        d = n_fft - hop + extra * hop
+        n = xs.shape[-1]
+
+        def spec(v):
+            return torch.stft(v, n_fft, hop, window=sw, center=True, pad_mode="reflect", return_complex=True).abs()
+        ref, m = spec(xs[..., : n - d]), spec(y[..., d:n])
+        k = min(m.shape[-1], ref.shape[-1]) - 2
+        return (torch.linalg.norm(m[..., 2:k] - ref[..., 2:k]) / torch.linalg.norm(ref[..., 2:k])).item()
+
+    iters = chain[1].gl_iterations
+    for mode, expect in (
+        ("pghi", {"session_magnitude": 1, "rt_pghi_phases": 1, "session_random_decode": 1}),
+        ("pghi_gl", {"session_magnitude": 1, "rt_pghi_seeded": n_ch, "gl_project_synthesis": n_ch * iters,
+                     "gl_project_analysis": n_ch * iters, "session_random_decode": 1}),
+    ):
+        require(streaming.plan_roundtrip(chain, tuple(xs.shape), chunk, mode, device=dev) == mode,
+                f"1200/300 {mode}: must plan the session")
+        y_k = route(f"1200/300 {mode} roundtrip",
+                    lambda: streaming.scan_roundtrip(chain, xs, chunk, mode, generator=sgen(153)), expect,
+                    main=False)
+        y_g = generic(f"1200/300 {mode} generic", lambda: streaming.scan_roundtrip(
+            chain, xs, chunk, mode, generator=sgen(153), backend="generic"))
+        s_k, s_g = sc(y_k), sc(y_g)
+        log(f"    vs the generic scan: rel {rel_err(y_k, y_g):.3e}; spectral convergence {s_k:.5f} / {s_g:.5f} "
+            f"(must be <= {1.1 * s_g + 1e-3:.5f})")
+        require(y_k.shape == y_g.shape and torch.isfinite(y_k).all().item() and s_k <= 1.1 * s_g + 1e-3,
+                f"1200/300 {mode}: the session converges worse than the generic scan")
 
 
 def main() -> int:
@@ -1200,14 +1584,18 @@ def main() -> int:
         w_s = gaussian_dgt_window(n_fft, device=dev)
         check_fullk(f"{n_fft}/{hop}", att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop,
                     args.seed + n_fft + hop)
-    # 4096/512: not even overlap + 2 chunks fit shared memory, so J raises
-    w_s = gaussian_dgt_window(4096, device=dev)
-    try:
-        glstep.make_gl_momentum_step_fullk(att.ops.stft(small, 4096, 512, w_s).abs(), 4096, 512, w_s, mom)
-    except NotImplementedError as exc:
-        log(f"  J 4096/512 on the card raises NotImplementedError: {str(exc)[:60]}...")
-    else:
-        raise SystemExit("FAILED: the full-K step at 4096/512 neither ran a kernel nor raised")
+    # where not even overlap + 2 chunks' whole [re | im] rows fit shared
+    # memory (4096/512, 8192/2048) J builds them in slabs; a clip of three
+    # frames reflects its trimmed signal twice (L = n_fft / 2)
+    for n_fft, hop in ((4096, 512), (8192, 2048)):
+        require(glstep._pick_fullk_rows(n_fft, hop) is None, f"{n_fft}/{hop} must take the slabbed block")
+        w_s = gaussian_dgt_window(n_fft, device=dev)
+        check_fullk(f"{n_fft}/{hop} in slabs of {glstep._pick_fullk_block(n_fft, hop)[2]} columns",
+                    att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop, args.seed + n_fft + hop)
+    clip3 = att.ops.stft(mono[:, : 2 * HOP + 1].contiguous(), N_FFT, HOP, w_dgt).abs()
+    require(clip3.shape[1] == 3, "the short clip must have three frames")
+    check_fullk("3-frame clip (two reflections)", clip3, N_FFT, HOP, args.seed + 43)
+    del clip3
 
     # a shape whose narrowest tile exceeds shared memory is refused, not
     # quietly computed some other way
@@ -1514,6 +1902,10 @@ def main() -> int:
     stream = stream_phase(args, dev, gen, errs, counts, (spectral, glstep, pghi_kernel))
     # ---------------------------- 4g. streaming RT-PGHI, the complex decode
     rt_stream = stream_pghi_phase(args, dev, errs, counts, stream)
+    # ------------------------------------------ 4g. streaming pghi_gl (O)
+    gl_stream = stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream)
+    # ----------------------------- 4h. shapes outside the kernels' structure
+    structure_phase(dev, mono, stream, (spectral, glstep, pghi_kernel, ss), errs)
 
     # ------------------------------------------------------------ 5. times
     log("[5] kernel times at the main-path shape (CUDA events, median of "
@@ -1926,7 +2318,81 @@ def main() -> int:
              bound=bound_of(8.0 * s_fr * F + s_out, s_fft + 2.0 * N_FFT * s_fr),
              ceiling=ceiling_of(syn_flops(t_dec, r_dec))),
     ]
-    log(f"  RT-PGHI recurrence: {100 * rt_silent:.1f}% of the bins silent (angles read there)")
+    # ---- O (phase 4g's pghi_gl shape: one chunk's grid of gl_context 3 +
+    # 16 frames, 64 sessions; the port pads it with 3 zero frames, which the
+    # bounds do not count).  The projection's synthesis is P's kernel in
+    # blocks of 8 chunks; what the function needs of it: the grid's
+    # magnitudes and phases read, the overlap-add signal from the first
+    # polished frame on written ((Tp - ctx) hop samples: the analysis reads
+    # no earlier one), an inverse FFT per grid frame, sincos and the window.
+    # Its analysis reads those samples and writes the phases of the polished
+    # frames that are not frozen (T_c + la - freeze_n rows), an FFT per row,
+    # the window and an atan2 (20) per bin.  The seeded recurrence as the
+    # recurrence, over 16 frames and the carries.  Yardsticks (timed, used
+    # nowhere): irfft x window + fold; unfold x window + rfft + angle.
+    g_rt = gl_stream["rt"]
+    gm, gp, g_syn, g_wc, g_ws = (gl_stream[k] for k in ("gm", "gp", "syn", "WC", "WS"))
+    g_ctx, g_lo, g_hi = g_rt.gl_context, gl_stream["lo"], gl_stream["hi"]
+    g_tp = gm.shape[1]
+    g_tx = g_tp - (ov - 1)
+    g_y = gl_stream["y"]
+    g_scratch = gp.clone()
+    g_win_syn = g_rt.inv_window / ov
+
+    def lib_proj_synth():
+        fr = torch.fft.irfft(torch.polar(gm, gp), n=N_FFT) * g_win_syn
+        y = torch.nn.functional.fold(fr.transpose(1, 2), (1, (g_tp - 1) * HOP + N_FFT), (1, N_FFT),
+                                     stride=(1, HOP))
+        return y.reshape(SB, -1)[:, : g_tp * HOP]
+
+    def lib_proj_analysis():
+        fr = g_y.unfold(-1, N_FFT, HOP)[:, g_ctx:g_tx] * g_rt.window
+        return torch.angle(torch.fft.rfft(fr, n=N_FFT))
+
+    def plain_proj_analysis():
+        fr = g_y.unfold(-1, N_FFT, HOP)[:, g_ctx:g_tx]
+        return torch.atan2(torch.matmul(fr, g_ws[:N_FFT]), torch.matmul(fr, g_wc[:N_FFT]))
+
+    g_fr = float(SB * g_tx)
+    g_rows = g_tx - g_ctx
+    g_upd = g_rows - (g_hi - g_lo)          # rows the analysis computes and writes
+    g_el = float(SB * g_upd * F)
+    g_samples = 4.0 * SB * (g_tp - g_ctx) * HOP
+    g_tiles = -(-g_tp // ss.PROJECT_SYN_ROWS)
+    s_m, s_prev, s_pp, s_a = (gl_stream[k] for k in ("m", "prev", "pp", "a"))
+    s_tt = s_m.shape[1]
+    rs_args = (g_rt.gamma, N_FFT, HOP, g_rt.tolerance, s_tt)
+    s_silent = (s_m <= torch.clamp_min(g_rt.tolerance * s_m.amax(dim=(1, 2), keepdim=True), 1.19e-7)).float()
+    s_silent = s_silent.mean().item()
+    specs += [
+        dict(key="Osyn", name="gl_project_synthesis", source=stream_src,
+             replaces=stream_tpu + ":940", launches=counts["gl_project_synthesis"],
+             run=lambda: ss._launch_decode(gm, gp, g_syn, N_FFT, HOP, rows=ss.PROJECT_SYN_ROWS,
+                                           name="gl_project_synthesis"),
+             plain=lambda: ss._synthesize(gm * torch.cos(gp), gm * torch.sin(gp), g_rt.inv_window, float(ov),
+                                          N_FFT, HOP, g_tp),
+             library=lib_proj_synth,
+             bound=bound_of(8.0 * g_fr * F + g_samples,
+                            2.5 * N_FFT * math.log2(N_FFT) * g_fr + N_FFT * g_fr + 22.0 * g_fr * F),
+             ceiling=ceiling_of(syn_flops(g_tiles, ss.PROJECT_SYN_ROWS))),
+        dict(key="Oana", name="gl_project_analysis", source=stream_src,
+             replaces=stream_tpu + ":940", launches=counts["gl_project_analysis"],
+             run=lambda: ss._launch_project_analysis(g_y, g_scratch, g_wc, g_ws, N_FFT, HOP, g_tx, g_ctx,
+                                                     g_lo, g_hi),
+             plain=plain_proj_analysis, library=lib_proj_analysis,
+             bound=bound_of(g_samples + 4.0 * g_el,
+                            2.5 * N_FFT * math.log2(N_FFT) * SB * g_upd + N_FFT * SB * g_upd + 20.0 * g_el),
+             ceiling=ceiling_of(ana_flops(SB * g_rows) + 20.0 * g_el)),
+        dict(key="RTs", name="rt_pghi_seeded", source="acids_transforms_tpu_torch/csrc/pghi.cu",
+             replaces=stream_tpu + ":668", launches=counts["rt_pghi_seeded"],
+             run=lambda: ss._launch_rt_pghi(s_m, s_a, *rs_args, s_prev, s_pp),
+             plain=lambda: ss.rt_pghi_phases_reference(s_m, s_a, *rs_args, prev_mag=s_prev, prev_phase=s_pp),
+             library=None,
+             bound=bound_of(4.0 * SB * s_tt * F * (2.0 + s_silent) + 12.0 * SB * F, 150.0 * SB * s_tt * F),
+             ceiling=ceiling_of(150.0 * SB * s_tt * F)),
+    ]
+    log(f"  RT-PGHI recurrence: {100 * rt_silent:.1f}% of the bins silent (angles read there); seeded, one "
+        f"chunk: {100 * s_silent:.1f}%")
     kernels = []
     for s in specs:
         # turns: plain, kernel, kernel, plain -- the kernel's time is the
@@ -1948,6 +2414,33 @@ def main() -> int:
             f"library {'none' if l_ms is None else format(l_ms, '.3f') + ' ms'}, bound {b_ms:.3f} ms by {b_by} "
             f"({100 * b_ms / k_ms:.1f}% of it reached); fp32 FMA ceiling of this design "
             f"{s['ceiling']:.3f} ms ({100 * s['ceiling'] / k_ms:.1f}%)")
+
+    # O's host share: a projection's two launches enqueued back to back
+    # behind a sleep kernel, so that the card never waits for the host while
+    # the host's time is taken
+    for b in (1, SB):
+        mb, pb = gm[:b].contiguous(), gp[:b].clone()
+        h_ms, d_ms = host_and_device_ms(
+            lambda: ss.gl_project(mb, pb, g_syn, g_rt.inv_window, g_rt.window, g_wc, g_ws, N_FFT, HOP,
+                                  g_ctx, g_lo, g_hi), 100)
+        log(f"  O projection at B={b}: host {h_ms:.4f} ms a projection to enqueue, card "
+            f"{'not isolated' if d_ms is None else format(d_ms, '.4f') + ' ms'} a projection back to back")
+
+    # J after its repair, at 4096/512 (slabs of the synthesis rows), on the
+    # main path's clips: one step, kernel and plain version
+    w_4k = gaussian_dgt_window(4096, device=dev)
+    mag_4k = att.ops.stft(mono, 4096, 512, w_4k).abs()
+    j4, _, _ = glstep.make_gl_momentum_step_fullk(mag_4k, 4096, 512, w_4k, mom)
+    g4 = torch.Generator(device=dev).manual_seed(args.seed + 52)
+    ph4 = 2 * math.pi * torch.rand(mag_4k.shape, generator=g4, device=dev)
+    st4 = (torch.cos(ph4), torch.sin(ph4), torch.zeros_like(ph4), torch.zeros_like(ph4))
+    env4 = glstep._env_rows(mag_4k.shape[1], 4096, 512, w_4k)
+    j4_ms = time_ms(lambda: j4(*st4), args.repeats)
+    j4_plain = time_ms(lambda: glstep.gl_momentum_step_fullk_reference(mag_4k, *st4, env4, 4096, 512, w_4k, mom),
+                       max(1, args.repeats // 2))
+    log(f"  J at 4096/512 ({tuple(mag_4k.shape)}, block {glstep._pick_fullk_block(4096, 512)}): {j4_ms:.3f} ms, "
+        f"plain {j4_plain:.3f} ms")
+    del mag_4k, ph4, st4, env4
 
     inv_ms = time_ms(whole_inversion, args.repeats)
     whole_b, whole_by = bound_of(4.0 * n_el * (1.0 + silent) + 4.0 * n_audio, synth_need + 150.0 * n_el)

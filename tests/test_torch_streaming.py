@@ -123,10 +123,13 @@ def test_init_state_shapes_per_mode():
     js, ps = jc[1].init_state((3,), mode="pghi"), pc[1].init_state((3,), mode="pghi")
     assert {k: tuple(v.shape) for k, v in ps.items()} == {k: v.shape for k, v in js.items()}
     assert set(ps) == {"mag_buffer", "phase_buffer"}
-    for mode in ("pghi_gl", "sinebank"):
-        assert jc[1].init_state((3,), mode=mode)  # the JAX package allocates these carries
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
-            pc[1].init_state((3,), mode=mode)
+    # pghi_gl: that history and the pinned context, as in the JAX package
+    js, ps = jc[1].init_state((3,), mode="pghi_gl"), pc[1].init_state((3,), mode="pghi_gl")
+    assert {k: tuple(v.shape) for k, v in ps.items()} == {k: v.shape for k, v in js.items()}
+    assert set(ps) == {"mag_buffer", "phase_buffer", "gl_mag", "gl_phase"}
+    assert jc[1].init_state((3,), mode="sinebank")  # the JAX package allocates this carry
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
+        pc[1].init_state((3,), mode="sinebank")
     # the DGT's default mode is pghi: it streams
     st = PT.RealtimeDGT(n_fft=512, hop_length=128, device="cpu").init_state((1,))
     assert {k: tuple(v.shape) for k, v in st.items()} == {"mag_buffer": (1, 2, 257), "phase_buffer": (1, 257)}
@@ -222,7 +225,7 @@ def test_streaming_unity_gain_after_the_delay(kind):
     snr = 10 * np.log10(np.sum(x[:n] ** 2) / np.sum(err ** 2))
     assert snr > 60, snr
     outs = pc[1].test_inversion(torch.as_tensor(x))
-    phaseless = {"keep_input", "random", "pghi"} | ({"pghi_exact"} if kind == "dgt" else set())
+    phaseless = {"keep_input", "random", "pghi", "pghi_gl"} | ({"pghi_exact"} if kind == "dgt" else set())
     assert set(outs) == {"direct"} | phaseless
     assert all(outs[m].shape == outs["direct"].shape and torch.isfinite(outs[m]).all() for m in phaseless)
     assert rel(t2n(outs["direct"])[d: d + n], x[:n]) <= 1e-4
@@ -303,11 +306,13 @@ def test_dispatch_contract():
             else:
                 assert PS.plan_roundtrip(pc, shape, 1000, backend=b, device=dev) == "generic"
                 assert PS.plan_roundtrip(three, shape, CHUNK, backend=b, device=dev) == "generic"
+        # the pghi_gl sessions (O)
+        assert PS.plan_roundtrip(pc, shape, CHUNK, "pghi_gl", device=dev) == ("pghi_gl" if card else "generic")
+        assert PS.plan_invert(pc, (4, 40, 257), 8, "pghi_gl", device=dev) == ("pghi_gl" if card else "generic")
+        assert PS.plan_roundtrip(pc, shape, CHUNK, "pghi_gl", backend="generic", device=dev) == "generic"
         # not ported yet: the card raises, the CPU runs the chunk scan under auto
         for call in (
-            lambda b: PS.plan_roundtrip(pc, shape, CHUNK, "pghi_gl", backend=b, device=dev),
             lambda b: PS.plan_roundtrip(pc, shape, CHUNK, "sinebank", backend=b, device=dev),
-            lambda b: PS.plan_invert(pc, (4, 40, 257), 8, "pghi_gl", backend=b, device=dev),
             lambda b: PS.plan_invert(pc, (4, 40, 257), 8, "sinebank", backend=b, device=dev),
         ):
             assert call("generic") == "generic"
@@ -335,13 +340,14 @@ def test_dispatch_contract():
 def test_unported_streaming_modes_raise_naming_roadmap():
     _, pc = chains(512, 128)
     mag = torch.rand(2, 8, 257)
-    for mode in ("pghi_gl", "sinebank"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
-            pc[1].invert(mag, inversion_mode=mode)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
-            pc[1].step_invert({}, mag, inversion_mode=mode)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PS.scan_roundtrip(pc, torch.as_tensor(signal(9)), CHUNK, mode, backend="generic")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
+        pc[1].invert(mag, inversion_mode="sinebank")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
+        pc[1].step_invert({}, mag, inversion_mode="sinebank")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PS.scan_roundtrip(pc, torch.as_tensor(signal(9)), CHUNK, "sinebank", backend="generic")
+    # pghi_gl streams now (tests/test_torch_stream_pghi_gl.py)
+    assert pc[1].invert(mag, inversion_mode="pghi_gl").shape == (2, 8, 512)
 
 
 def test_realtime_variants_of_the_offline_transforms():
