@@ -105,19 +105,23 @@ __host__ __device__ __forceinline__ int n_col_tiles(int F, int P) {
 // hop + klen) (n_rows = n_frames of them, overlapping), bcos / bsin are the
 // window-folded (klen, F) basis, and X is the product itself (twr / twi are
 // not read; P = 0).
-static __device__ void analysis_tile(const float* As, int n_rows, int n_frames, int hop,
-                              int overlap, int F, int ct, int P,
-                              const float* __restrict__ bcos,
-                              const float* __restrict__ bsin,
-                              const float* __restrict__ twr,
-                              const float* __restrict__ twi, AnaWork w, int klen = 0) {
+//
+// Two pieces, called in turn: chunk_product, then twiddle_combine.  The floor
+// sweep (csrc/spectral.cu:melspec_stage_kernel) stops after the first.
+
+// The chunk product of one column tile: w.colbin / w.colsgn for its columns,
+// and C[r][c] = sum_n As[r][n] B[n][colbin[c]] for r < n_rows in w.Cre /
+// w.Cim (the raw product: no hermitian sign applied).  Ends with a
+// __syncthreads(): C is readable on return.
+static __device__ void chunk_product(const float* As, int n_rows, int hop, int F, int ct, int P,
+                                     const float* __restrict__ bcos,
+                                     const float* __restrict__ bsin, AnaWork w, int klen = 0) {
     const int tid = threadIdx.x;
     const int tx = tid & 31;
     const int ty = tid >> 5;
     const int N = F - 1;
     const int kk0 = ct * (kColTile - 2 * P) - P;
-    const bool fullk = klen > 0;
-    const int K = fullk ? klen : hop;  // contraction length
+    const int K = klen > 0 ? klen : hop;  // contraction length
 
     __syncthreads();  // previous users of the work area are done
     if (tid < kColTile) {
@@ -221,9 +225,15 @@ static __device__ void analysis_tile(const float* As, int n_rows, int n_frames, 
         }
     }
     __syncthreads();
+}
 
-    // twiddle combine: frame t collects chunks t + j
-    for (int idx = tid; idx < n_frames * kColTile; idx += kThreads) {
+// The twiddle combine of one column tile: frame t collects chunks t + j of
+// chunk_product's C, for t < n_frames, with the hermitian sign (full-K: X is
+// C itself).  Ends with a __syncthreads(): X is readable on return.
+static __device__ void twiddle_combine(int n_frames, int overlap, int F,
+                                       const float* __restrict__ twr,
+                                       const float* __restrict__ twi, AnaWork w, bool fullk) {
+    for (int idx = threadIdx.x; idx < n_frames * kColTile; idx += kThreads) {
         int t = idx / kColTile;
         int c = idx - t * kColTile;
         int bin = w.colbin[c];
@@ -246,6 +256,16 @@ static __device__ void analysis_tile(const float* As, int n_rows, int n_frames, 
         w.Xim[idx] = xi;
     }
     __syncthreads();
+}
+
+static __device__ void analysis_tile(const float* As, int n_rows, int n_frames, int hop,
+                                     int overlap, int F, int ct, int P,
+                                     const float* __restrict__ bcos,
+                                     const float* __restrict__ bsin,
+                                     const float* __restrict__ twr,
+                                     const float* __restrict__ twi, AnaWork w, int klen = 0) {
+    chunk_product(As, n_rows, hop, F, ct, P, bcos, bsin, w, klen);
+    twiddle_combine(n_frames, overlap, F, twr, twi, w, klen > 0);
 }
 
 // Taps conv of the combined spectrum at tile column c (P <= c < kColTile - P).

@@ -13,6 +13,10 @@
 //   repr_stats_kernel<.., true>    <- _repr_stats_kernel    (full-K)
 //   stats_reduce_kernel     <- the accumulation the TPU kernel carried across its
 //                              sequential grid (_stats_update)
+//   melspec_stage_kernel<kStage> <- the stage-prefix kernel of
+//                              tools/sweep_kernel_floor.py (its pallas_call at
+//                              :110): melspec_forward_kernel<false, false,
+//                              false> cut after one of its stages
 //
 // The full-K kernels differ from the factored ones only before the magnitude
 // (one epilogue, two front ends): frame t is the slice row[t hop, t hop +
@@ -69,12 +73,33 @@
 // 66 KB of shared memory at F = 513), so shared-memory latency is hidden by
 // instruction-level parallelism only; 128-column tiles cover 513 bins with
 // 20 % waste, 40-row tiles hold 35 rows.
+//
+// The floor sweep (melspec_stage_kernel, ops/cuda/spectral.py:
+// melspec_forward_stage) times A cut after each of its stages, one
+// instantiation a stage, with A's grid, threads and shared memory, so that
+// each increment is that stage's share of A's time.  Each prefix stores a
+// value that depends on all of its work (nothing is dead to the compiler);
+// the shipped kernels are the kStageFull instantiations, the same code as
+// without the cut.
 #include <cuda_bf16.h>
 #include <math.h>
 
 #include "dft_common.cuh"
 
 namespace att {
+
+// Stages of the floor sweep, numbered as the JAX tool's (its s2, a bf16x3
+// product, has no counterpart: this product is one fp32 pass).  Each adds
+// one piece of A to the previous one; kStageMelDense is kStageMel with the
+// dense product.
+constexpr int kStageCopy = 0;      // rows into shared memory; store the block's first sample
+constexpr int kStageDots = 1;      // + chunk product; store Cre + Cim of the tile's chunks
+constexpr int kStageCombine = 3;   // + twiddle combine, centre tap only, power
+constexpr int kStageTaps = 4;      // + the neighbour taps, power
+constexpr int kStageMag = 5;       // + sqrt (A's power)
+constexpr int kStageMel = 6;       // + banded mel product
+constexpr int kStageFull = 7;      // + contrast and affine: A
+constexpr int kStageMelDense = 8;  // kStageMel over every row of the bank
 
 // n_rows hop chunks from row row0 of the prepared rows into xs (int16 PCM
 // converted here, x * 2^-15, exact), then a barrier.
@@ -97,7 +122,10 @@ __device__ void load_rows(const void* __restrict__ x_rows, size_t row0, int n_ro
 }
 
 // Magnitudes (or powers) of one block's tile_t frames into mag_s[t * F + k].
-template <bool kInt16, bool kFullK>
+// kStage < kStageMag cuts it short (see the stages above): kStageCopy only
+// loads the rows, kStageDots stores Cre + Cim of the chunk product in place
+// of the magnitudes, kStageCombine and kStageTaps the power.
+template <bool kInt16, bool kFullK, int kStage = kStageFull>
 __device__ void block_magnitudes(const void* __restrict__ x_rows, long long b, int tile,
                                  int tile_t, int n_rows_total, int hop, int overlap, int F,
                                  const float* bcos, const float* bsin, const float* twr,
@@ -105,12 +133,30 @@ __device__ void block_magnitudes(const void* __restrict__ x_rows, long long b, i
                                  float* mag_s, AnaWork w) {
     const int tid = threadIdx.x;
     const int n_rows = tile_t + overlap - 1;
+    static_assert(!kFullK || kStage == kStageFull, "the floor sweep cuts the factored front end");
     load_rows<kInt16>(x_rows, (size_t)b * n_rows_total + (size_t)tile * tile_t, n_rows, hop, xs);
+    if (kStage == kStageCopy) return;
 
     const int P = taps.P;
     const int useful = kColTile - 2 * P;
     const int n_ct = n_col_tiles(F, P);
+    Taps conv = taps;  // kStageCombine: A's column tiles, the centre tap alone
+    if (kStage == kStageCombine) conv.P = 0;
+    const bool pow2 = kStage <= kStageTaps || power2;
     for (int ct = 0; ct < n_ct; ++ct) {
+        if (kStage == kStageDots) {
+            chunk_product(xs, n_rows, hop, F, ct, P, bcos, bsin, w);
+            for (int idx = tid; idx < tile_t * useful; idx += kThreads) {
+                int t = idx / useful;
+                int cu = idx - t * useful;
+                int k = ct * useful + cu;
+                if (k < F) {
+                    const int c = t * kColTile + cu + P;
+                    mag_s[t * F + k] = w.Cre[c] + w.Cim[c];
+                }
+            }
+            continue;
+        }
         if (kFullK) {
             analysis_tile(xs, tile_t, tile_t, hop, overlap, F, ct, P, bcos, bsin, twr, twi, w,
                           overlap * hop);
@@ -124,9 +170,9 @@ __device__ void block_magnitudes(const void* __restrict__ x_rows, long long b, i
             int k = k0 + cu;
             if (k < F) {
                 float re, im;
-                taps_at(w, taps, t, cu + P, &re, &im);
+                taps_at(w, conv, t, cu + P, &re, &im);
                 float p = re * re + im * im;
-                mag_s[t * F + k] = power2 ? p : sqrtf(p);
+                mag_s[t * F + k] = pow2 ? p : sqrtf(p);
             }
         }
     }
@@ -139,7 +185,9 @@ __device__ __forceinline__ float contrast_of(float v, int contrast) {
 
 // Mel product (banded), contrast, affine and store of one block's kTile
 // frames; a thread owns output columns and keeps its kTile sums in registers.
-template <int kTile, bool kBf16>
+// Every stage but kStageFull stores the sums as they are (no contrast, no
+// affine); kStageMelDense sums over every row of the bank.
+template <int kTile, bool kBf16, int kStage = kStageFull>
 __device__ void emit_tile(const float* mag_s, long long b, int t_base, int F, int T,
                           int contrast, const float* __restrict__ mel_bank,
                           const int* __restrict__ mel_lo, const int* __restrict__ mel_hi,
@@ -151,7 +199,8 @@ __device__ void emit_tile(const float* mag_s, long long b, int t_base, int F, in
         if (mel_bank != nullptr) {
 #pragma unroll
             for (int t = 0; t < kTile; ++t) acc[t] = 0.0f;
-            const int lo = mel_lo[m], hi = mel_hi[m];
+            const int lo = kStage == kStageMelDense ? 0 : mel_lo[m];
+            const int hi = kStage == kStageMelDense ? F : mel_hi[m];
             for (int f = lo; f < hi; ++f) {
                 float bv = __ldg(mel_bank + (size_t)f * M + m);
 #pragma unroll
@@ -166,7 +215,8 @@ __device__ void emit_tile(const float* mag_s, long long b, int t_base, int F, in
 #pragma unroll
         for (int t = 0; t < kTile; ++t) {
             if (t < t_valid) {
-                float y = (contrast_of(acc[t], contrast) - offset) / scale;
+                float y = kStage == kStageFull ? (contrast_of(acc[t], contrast) - offset) / scale
+                                               : acc[t];
                 size_t o = ((size_t)b * T + (t_base + t)) * n_out + m;
                 if (kBf16) {
                     reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(y);
@@ -214,6 +264,56 @@ melspec_forward_kernel(const void* __restrict__ x_rows, int n_tiles, int tile_t,
         default:
             emit_tile<8, kBf16>(mag_s, b, t_base, F, T, contrast, mel_bank, mel_lo, mel_hi, M,
                                 offset, scale, out);
+    }
+}
+
+// A (float32 rows, float32 out, factored front end) cut after stage kStage.
+// The stages up to kStageMag write (B, T, F), the later ones (B, T, M).
+template <int kStage>
+__global__ void __launch_bounds__(kThreads)
+melspec_stage_kernel(const float* __restrict__ x_rows, int n_tiles, int tile_t,
+                     int n_rows_total, int hop, int overlap, int F, int T, const float* bcos,
+                     const float* bsin, const float* twr, const float* twi, Taps taps,
+                     int power2, int contrast, const float* __restrict__ mel_bank,
+                     const int* __restrict__ mel_lo, const int* __restrict__ mel_hi, int M,
+                     const float* __restrict__ aff, float* __restrict__ out) {
+    extern __shared__ __align__(16) float smem[];
+    const int n_rows = tile_t + overlap - 1;
+    float* xs = smem;
+    float* mag_s = xs + (size_t)n_rows * hop;
+    AnaWork w = carve_ana(mag_s + (size_t)tile_t * F);
+
+    const long long blk = blockIdx.x;
+    const long long b = blk / n_tiles;
+    const int tile = (int)(blk - b * n_tiles);
+    block_magnitudes<false, false, kStage>(x_rows, b, tile, tile_t, n_rows_total, hop, overlap,
+                                           F, bcos, bsin, twr, twi, taps, power2 != 0, xs,
+                                           mag_s, w);
+    const int t_base = tile * tile_t;
+    if (kStage == kStageCopy) {
+        // zeros plus the block's first sample, stored as emit_tile stores
+        const float v = 0.0f + xs[0];
+        const int t_valid = min(tile_t, T - t_base);
+        for (int k = threadIdx.x; k < F; k += kThreads) {
+            for (int t = 0; t < t_valid; ++t) out[((size_t)b * T + (t_base + t)) * F + k] = v;
+        }
+        return;
+    }
+    const float* bank = kStage >= kStageMel ? mel_bank : nullptr;
+    const float offset = aff[0];
+    const float scale = aff[1];
+    switch (tile_t) {
+        case 32:
+            emit_tile<32, false, kStage>(mag_s, b, t_base, F, T, contrast, bank, mel_lo, mel_hi,
+                                         M, offset, scale, out);
+            break;
+        case 16:
+            emit_tile<16, false, kStage>(mag_s, b, t_base, F, T, contrast, bank, mel_lo, mel_hi,
+                                         M, offset, scale, out);
+            break;
+        default:
+            emit_tile<8, false, kStage>(mag_s, b, t_base, F, T, contrast, bank, mel_lo, mel_hi,
+                                        M, offset, scale, out);
     }
 }
 
@@ -619,6 +719,52 @@ int att_melspec_forward(const void* x_rows, int x_int16, long long B, int n_tile
     }
 #undef ATT_LAUNCH_FWD_FK
 #undef ATT_LAUNCH_FWD
+    return (int)cudaGetLastError();
+}
+
+// Kernel T: A cut after stage `stage` (0, 1, 3-8: csrc/spectral.cu's
+// kStage*), on float32 rows laid out as for att_melspec_forward with P >= 0,
+// A's grid, threads and shared memory whatever the stage needs, and A's
+// configuration: magnitudes from stage 5 on, log1p at stage 7.  out: (B, T,
+// F) float32 up to stage 5, (B, T, M) from stage 6 on; mel_bank / mel_lo /
+// mel_hi as for att_melspec_forward.  Returns a cudaError_t.
+int att_melspec_stage(int stage, const float* x_rows, long long B, int n_tiles, int tile_t,
+                      int n_rows_total, int hop, int overlap, int F, int T, const float* bcos,
+                      const float* bsin, const float* twr, const float* twi,
+                      const float* taps_host, int P, const float* mel_bank, const int* mel_lo,
+                      const int* mel_hi, int M, const float* aff, float* out, void* stream) {
+    using namespace att;
+    if (P < 0 || P >= kMaxTaps || overlap < 1 || tile_t + overlap - 1 > kMaxRows ||
+        (tile_t != 32 && tile_t != 16 && tile_t != 8) || hop % kKC != 0 ||
+        (stage >= kStageMel && mel_bank == nullptr)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const size_t smem = forward_smem_bytes(tile_t, hop, overlap, F);
+    const Taps taps = make_taps(taps_host, P);
+    const dim3 grid((unsigned)(B * n_tiles));
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
+#define ATT_LAUNCH_STAGE(S)                                                                \
+    case S:                                                                                \
+        err = allow_smem(melspec_stage_kernel<S>, smem);                                   \
+        if (err != cudaSuccess) return (int)err;                                           \
+        melspec_stage_kernel<S><<<grid, kThreads, smem, s>>>(                              \
+            x_rows, n_tiles, tile_t, n_rows_total, hop, overlap, F, T, bcos, bsin, twr,    \
+            twi, taps, 0, 1, mel_bank, mel_lo, mel_hi, M, aff, out);                       \
+        break
+    switch (stage) {
+        ATT_LAUNCH_STAGE(kStageCopy);
+        ATT_LAUNCH_STAGE(kStageDots);
+        ATT_LAUNCH_STAGE(kStageCombine);
+        ATT_LAUNCH_STAGE(kStageTaps);
+        ATT_LAUNCH_STAGE(kStageMag);
+        ATT_LAUNCH_STAGE(kStageMel);
+        ATT_LAUNCH_STAGE(kStageFull);
+        ATT_LAUNCH_STAGE(kStageMelDense);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+#undef ATT_LAUNCH_STAGE
     return (int)cudaGetLastError();
 }
 

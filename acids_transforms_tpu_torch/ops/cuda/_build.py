@@ -5,21 +5,24 @@ shared library with a plain C interface and loaded with ``ctypes``.  The
 library lands in ``acids_transforms_tpu_torch/_build/<hash>/``, keyed by a
 hash of the sources and the flags, so a changed source rebuilds and an
 unchanged one is reused.  Each ``.cu`` file is its own ``nvcc`` process, all
-started together.  A build failure raises with the compiler's output.
+started together.  A build failure raises with the compiler's output; the
+output of a build that succeeds (``-Xptxas -v``: each kernel's registers and
+spills) is kept beside the library as ``build.log``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional
 
-__all__ = ["load_library", "build_seconds", "check", "NVCC_FLAGS"]
+__all__ = ["load_library", "build_seconds", "build_log", "kernel_resources", "check", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -31,6 +34,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_lib_dir: Optional[Path] = None
 _build_seconds: Optional[float] = None
 _build_log: str = ""
 
@@ -89,6 +93,7 @@ def _build(out_dir: Path) -> Path:
     _build_log += "\n$ %s\n%s" % (" ".join(cmd), res.stdout)
     if res.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + _build_log)
+    (out_dir / "build.log").write_text(_build_log)
     os.replace(tmp, lib)  # atomic: a concurrent process never loads a partial file
     return lib
 
@@ -116,6 +121,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p,                         # partials, stats, stream
     ]
     lib.att_melspec_stats.restype = i
+    lib.att_melspec_stage.argtypes = [
+        i, p, ll, i, i,                  # stage, x_rows, B, n_tiles, tile_t
+        i, i, i, i, i,                   # n_rows_total, hop, overlap, F, T
+        p, p, p, p,                      # bcos, bsin, twr, twi
+        ctypes.POINTER(f), i,            # taps, P
+        p, p, p, i,                      # mel_bank, mel_lo, mel_hi, M
+        p, p, p,                         # aff, out, stream
+    ]
+    lib.att_melspec_stage.restype = i
     lib.att_repr_smem_bytes.argtypes = [i, i, i, i, i]
     lib.att_repr_smem_bytes.restype = ll
     lib.att_repr.argtypes = [
@@ -208,7 +222,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on the first call."""
-    global _lib, _build_seconds
+    global _lib, _lib_dir, _build_seconds
     with _lock:
         if _lib is None:
             t0 = time.perf_counter()
@@ -218,7 +232,7 @@ def load_library() -> ctypes.CDLL:
                 lib_path = _build(out_dir)
             lib = ctypes.CDLL(str(lib_path))
             _declare(lib)
-            _lib = lib
+            _lib, _lib_dir = lib, out_dir
             _build_seconds = time.perf_counter() - t0
         return _lib
 
@@ -229,8 +243,38 @@ def build_seconds() -> Optional[float]:
 
 
 def build_log() -> str:
-    """The compiler's output of this process's build (empty when reused)."""
+    """The compiler's output of the loaded library's build (``build.log``
+    beside it when this process reused it; empty before the first load)."""
+    if not _build_log and _lib_dir is not None and (_lib_dir / "build.log").exists():
+        return (_lib_dir / "build.log").read_text()
     return _build_log
+
+
+_ENTRY = re.compile(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def kernel_resources(log: Optional[str] = None) -> Dict[str, Dict[str, int]]:
+    """Per kernel (by its mangled name) what ``-Xptxas -v`` reported in the
+    build log: ``registers`` a thread and ``spill_stores`` / ``spill_loads``
+    in bytes."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in (build_log() if log is None else log).splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None:
+            continue
+        m = _SPILL.search(line)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = _REGS.search(line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 def check(code: int, what: str) -> None:

@@ -22,6 +22,10 @@ Both need ``hop | n_fft``.
 (Polar, PolarIF, Cartesian): one DFT feeds channel 1 (``|X|`` through mel,
 contrast and affine, or ``Re``) and channel 2 (the angle, the frame-local
 instantaneous frequency, or ``Im``) with an affine each.
+
+``melspec_forward_stage`` runs the factored forward cut after one of its
+stages (``STAGES``) on prepared rows: the kernel of the floor sweep
+(``tools/sweep_kernel_floor.py``), which attributes A's time to its stages.
 """
 from __future__ import annotations
 
@@ -53,6 +57,9 @@ __all__ = [
     "fused_spectral_repr_reference",
     "fused_repr_stats",
     "fused_repr_stats_reference",
+    "melspec_forward_stage",
+    "melspec_forward_stage_reference",
+    "STAGES",
     "launches",
     "reset_launches",
 ]
@@ -67,6 +74,7 @@ launches: Dict[str, int] = {
     "fused_melspec_fullk": 0, "fused_melspec_stats_fullk": 0,
     "fused_spectral_repr": 0, "fused_spectral_repr_fullk": 0,
     "fused_repr_stats": 0, "fused_repr_stats_fullk": 0,
+    "melspec_stage": 0,
 }
 #: channel-2 selectors of the representation kernels
 SECONDS = {"phase": 0, "if": 1, "imag": 2}
@@ -721,3 +729,122 @@ def fused_repr_stats(
                 "min": s[r0 + 2].min().float(), "max": s[r0 + 3].max().float()}
 
     return {"ch1": chan(0), "ch2": chan(4), "count": count}
+
+
+# ---------------------------------------------------------------------------
+# The floor sweep's stage prefixes of A (kernel T)
+
+#: stages of the floor sweep in the order they build A up, numbered as the JAX
+#: tool's (``tools/sweep_kernel_floor.py``); its ``s2_dots3`` (a bf16x3
+#: product) has no counterpart, since A's chunk product is one fp32 pass.
+#: ``s8_mel_dense`` is ``s6_mel_banded`` with the dense mel product.
+STAGES = {"s0_copy": 0, "s1_dots": 1, "s3_combine": 3, "s4_taps": 4, "s5_mag": 5,
+          "s6_mel_banded": 6, "s7_full": 7, "s8_mel_dense": 8}
+
+
+def _stage_shape(rows, stage, n_fft, hop, n_frames, taps, mel_bank):
+    """``(stage number, tile_t, n_tiles)`` after checking the arguments: rows
+    as ``_prepare_rows`` lays them out for A's frame tile."""
+    if stage not in STAGES:
+        raise ValueError("stage must be one of %s, got %r" % (", ".join(STAGES), stage))
+    if taps is None or not fused_melspec_available(n_fft, hop, taps):
+        raise ValueError("the stages cut A's factored front end: cosine-sum taps needed")
+    tile_t = _kernel_tile(n_fft, hop, taps)
+    n_tiles = -(-n_frames // tile_t)
+    if (rows.dtype != torch.float32 or rows.ndim != 3 or not rows.is_contiguous()
+            or tuple(rows.shape[1:]) != (n_tiles * tile_t + n_fft // hop - 1, hop)):
+        raise ValueError("rows must be contiguous float32 (B, %d, %d) as _prepare_rows makes them for "
+                         "%d frames" % (n_tiles * tile_t + n_fft // hop - 1, hop, n_frames))
+    F = n_fft // 2 + 1
+    if mel_bank.dtype != torch.float32 or mel_bank.device != rows.device or mel_bank.shape[0] != F:
+        raise ValueError("mel_bank must be float32 (n_bins, n_mels) on the rows' device")
+    return STAGES[stage], tile_t, n_tiles
+
+
+def melspec_forward_stage_reference(
+    rows: torch.Tensor,
+    stage: str,
+    n_fft: int,
+    hop_length: int,
+    n_frames: int,
+    taps: tuple,
+    mel_bank: torch.Tensor,
+    offset=0.0,
+    scale=1.0,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`melspec_forward_stage`."""
+    s, tile_t, n_tiles = _stage_shape(rows, stage, n_fft, hop_length, n_frames, taps, mel_bank)
+    B, F = rows.shape[0], n_fft // 2 + 1
+    if s == 0:
+        first = rows[:, 0: n_tiles * tile_t: tile_t, 0].repeat_interleave(tile_t, dim=1)
+        return rows.new_zeros((B, n_frames, F)) + first[:, :n_frames, None]
+    Ch, Sh = _tables(_chunk_dft_matrices, rows.device, n_fft, hop_length)
+    Cre = torch.matmul(rows, Ch)
+    Cim = torch.matmul(rows, Sh)
+    if s == 1:
+        return (Cre + Cim)[:, :n_frames]
+    Xre, Xim = _twiddle_analysis(Cre, Cim, n_fft, hop_length, n_frames)
+    re, im = _taps_conv(Xre, Xim, taps[:1] if s == 3 else taps)
+    mag = re * re + im * im
+    if s <= 4:
+        return mag
+    mag = torch.sqrt(mag)
+    if s == 5:
+        return mag
+    mel = torch.matmul(mag, mel_bank)
+    if s != 7:
+        return mel
+    return (torch.log1p(mel) - offset) / scale
+
+
+def melspec_forward_stage(
+    rows: torch.Tensor,
+    stage: str,
+    n_fft: int,
+    hop_length: int,
+    n_frames: int,
+    taps: tuple,
+    mel_bank: torch.Tensor,
+    offset=0.0,
+    scale=1.0,
+) -> torch.Tensor:
+    """A (the factored forward of :func:`fused_melspec`) cut after ``stage``.
+
+    ``rows``: float32 rows from ``_prepare_rows(x, n_fft, hop_length, center,
+    tile_t)`` with A's frame tile, ``n_frames`` the frames they hold.  A's
+    configuration: cosine-sum ``taps``, magnitudes (power 1), ``mel_bank``,
+    log1p, ``(y - offset) / scale``.  Each stage stores what its work ends in:
+    ``s0_copy`` zeros plus its block's first sample, ``s1_dots`` ``Cre +
+    Cim`` of the chunk product at each frame's first chunk, ``s3_combine``
+    the power of the combined spectrum times the centre tap, ``s4_taps`` the
+    power after the whole taps conv, ``s5_mag`` the magnitude (all ``(B,
+    n_frames, n_bins)``), ``s6_mel_banded`` / ``s8_mel_dense`` its mel
+    product and ``s7_full`` A's output (``(B, n_frames, n_mels)``).  On a
+    CUDA tensor one launch of kernel T with A's grid, threads and shared
+    memory, whatever the stage needs."""
+    if not rows.is_cuda:
+        return melspec_forward_stage_reference(rows, stage, n_fft, hop_length, n_frames, taps,
+                                               mel_bank, offset, scale)
+    s, tile_t, n_tiles = _stage_shape(rows, stage, n_fft, hop_length, n_frames, taps, mel_bank)
+    dev = rows.device
+    B, F = rows.shape[0], n_fft // 2 + 1
+    (bc, bs), twr_p, twi_p, taps_c, P = _front_end(dev, n_fft, hop_length, taps, None)
+    bank = mel_bank.contiguous()
+    lo, hi = _mel_band(bank)
+    M = bank.shape[1]
+    aff = torch.stack(
+        [torch.as_tensor(offset, dtype=torch.float32, device=dev).reshape(()),
+         torch.as_tensor(scale, dtype=torch.float32, device=dev).reshape(())]
+    )
+    out = torch.empty((B, n_frames, M if s >= 6 else F), dtype=torch.float32, device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        code = lib.att_melspec_stage(
+            s, rows.data_ptr(), B, n_tiles, tile_t, rows.shape[1], hop_length,
+            n_fft // hop_length, F, n_frames, bc.data_ptr(), bs.data_ptr(), twr_p, twi_p,
+            taps_c, P, bank.data_ptr(), lo.data_ptr(), hi.data_ptr(), M, aff.data_ptr(),
+            out.data_ptr(), _stream(),
+        )
+    _build.check(code, "melspec_stage")
+    launches["melspec_stage"] += 1
+    return out

@@ -22,7 +22,11 @@ chunk; lookahead 4 too), all held against the generic chunk scan, and (phase
 4h) the dispatch outside the JAX package's gates: shapes no kernel covers
 (``STFT(1024, 300)``, ``RealtimeSTFT(1000, 250)``) on the eager route against
 the same calls on the CPU, and shapes the port's kernels take (1200/300) on
-the kernels.  It shows by
+the kernels.  Phase 6 runs the floor sweep of A
+(``acids_transforms_tpu_torch.tools.sweep_kernel_floor``: kernel T, A cut
+after each of its stages) at the main path's shape, prints each stage's
+increment beside its own floor, and holds every stage against its plain
+version (``s7_full`` bit-identical to A).  It shows by
 the launch counters that each path went through its kernels, times them, and
 prints
 
@@ -1182,6 +1186,120 @@ def structure_phase(dev, mono, stream, wrappers, errs):
             f"(must be <= {1.1 * s_g + 1e-3:.5f})")
         require(y_k.shape == y_g.shape and torch.isfinite(y_k).all().item() and s_k <= 1.1 * s_g + 1e-3,
                 f"1200/300 {mode}: the session converges worse than the generic scan")
+
+
+def sweep_phase(args, dev, mono, bank, off, scl, taps, kernels, bound_of, wrappers):
+    """Phase 6: kernel T, A built up stage by stage.  Runs the floor sweep
+    through its entry point at the main path's shape (its own additive
+    signal, as the tool has it) and counts its launches, prints each stage's
+    increment beside that increment's own floor, holds every stage against
+    its plain version on the main path's clips (``s7_full`` bit-identical to
+    A, and within 10 % of A's phase-5 time), and appends row T."""
+    from acids_transforms_tpu_torch.ops.cuda import spectral
+    from acids_transforms_tpu_torch.tools import sweep_kernel_floor as sweep_tool
+
+    log("[6] kernel T: A built up stage by stage (the floor sweep), CUDA events over "
+        f"{sweep_tool.RUNS} x {sweep_tool.ITERS} launches back to back")
+    for w in wrappers:
+        w.reset_launches()
+    rows_sw = sweep_tool.sweep(args.batch, seed=args.seed)
+    t_launches = spectral.launches["melspec_stage"]
+    others = sum(v for w in wrappers for k, v in w.launches.items() if k != "melspec_stage")
+    expect = len(spectral.STAGES) * (1 + sweep_tool.RUNS * sweep_tool.ITERS)
+    require(t_launches == expect and others == 0,
+            f"the sweep launched T {t_launches} times (expected {expect}) and other kernels {others} times")
+
+    B = mono.shape[0]
+    F, M, ov = N_FFT // 2 + 1, bank.shape[1], N_FFT // HOP
+    tile_t = spectral._kernel_tile(N_FFT, HOP, taps)
+    rows, n_fr, _ = spectral._prepare_rows(mono, N_FFT, HOP, True, tile_t)
+    fr = float(B * n_fr)
+    nnz = float((bank != 0).sum().item())
+    # what each stage adds to the one it builds on: bytes moved once (rows
+    # read and F columns written at s0; the bank read by the mel products),
+    # and the operations of this design (the chunk product of every chunk a
+    # frame starts at and its overlap - 1 halo chunks, counted once; the
+    # twiddle combine, 4 multiply-adds per twiddle; the centre tap and the
+    # power; 2 multiply-adds per neighbour tap; sqrt; 2 per nonzero of the
+    # bank, or of the whole bank dense; log1p and the affine, 3 per output)
+    added = {
+        "s0_copy": (4.0 * rows.numel() + 4.0 * fr * F, 0.0),
+        "s1_dots": (0.0, 4.0 * B * (n_fr + ov - 1) * HOP * F + fr * F),
+        "s3_combine": (0.0, 8.0 * fr * F * ov + 5.0 * fr * F),
+        "s4_taps": (0.0, 8.0 * fr * F * (len(taps) - 1)),
+        "s5_mag": (0.0, fr * F),
+        "s6_mel_banded": (4.0 * F * M, 2.0 * fr * nnz),
+        "s7_full": (0.0, 3.0 * fr * M),
+        "s8_mel_dense": (4.0 * F * M, 2.0 * fr * F * M),
+    }
+    res = {r["stage"]: r for r in rows_sw}
+    for name, r in res.items():
+        if name == "s3_combine":
+            log(f"  s2_dots3: absent ({sweep_tool.S2_ABSENT})")
+        floor, by = bound_of(*added[name])
+        r["floor_ms"], r["floor_by"] = floor, by
+        log(f"  {name}: {r['ms']:.3f} ms, +{r['increment_ms']:.3f} over {r['over'] or 'nothing'}; that "
+            f"increment's floor {floor:.4f} ms by {by} ({100 * floor / r['increment_ms']:.1f}% of it "
+            f"reached); {r['mframes_per_s']:.2f} M frames/s; {r['registers']} registers, "
+            f"{r['spill_bytes']} B spilled")
+    prep_ms = time_ms(lambda: spectral._prepare_rows(mono, N_FFT, HOP, True, tile_t), args.repeats)
+    log(f"  _prepare_rows at {tuple(mono.shape)} -> {tuple(rows.shape)}: {prep_ms:.4f} ms "
+        "(outside every kernel; A's phase-5 time includes it)")
+
+    # every stage against its plain version on the main path's clips
+    from acids_transforms_tpu_torch.ops.fft import _chunk_dft_matrices, _tables
+
+    Ch, Sh = _tables(_chunk_dft_matrices, dev, N_FFT, HOP)
+    c_max = torch.complex(torch.matmul(rows, Ch), torch.matmul(rows, Sh)).abs().max().item()
+    shape_t = (N_FFT, HOP, n_fr, taps, bank, off, scl)
+    out, t_err = {}, 0.0
+    for name in spectral.STAGES:
+        y_k = spectral.melspec_forward_stage(rows, name, *shape_t)
+        y_p = spectral.melspec_forward_stage_reference(rows, name, *shape_t)
+        torch.cuda.synchronize()
+        require(tuple(y_k.shape) == tuple(y_p.shape) and torch.isfinite(y_k).all().item(),
+                f"T {name}: bad output {tuple(y_k.shape)}")
+        e_abs, e_rel = abs_err(y_k, y_p), rel_err(y_k, y_p)
+        t_err = max(t_err, e_abs)
+        out[name] = y_k
+        if name == "s0_copy":
+            log(f"  T {name}: bit-identical to plain: {torch.equal(y_k, y_p)}")
+            require(torch.equal(y_k, y_p), "T s0_copy differs from its plain version")
+        elif name == "s1_dots":
+            # fp32 sums of 256 products in another order than cuBLAS
+            log(f"  T {name}: abs {e_abs:.3e} = {e_abs / c_max:.3e} of the largest |C| (tol 1e-05)")
+            require(e_abs <= 1e-5 * c_max, "T s1_dots disagrees with plain")
+        else:
+            # as A: a few 1e-7 per product through the combine, taps, sqrt, mel
+            log(f"  T {name}: f32 rel {e_rel:.3e} (tol 2e-05)")
+            require(e_rel <= 2e-5, f"T {name} disagrees with plain")
+    y_a = spectral.fused_melspec(mono, N_FFT, HOP, mel_bank=bank, offset=off, scale=scl, contrast="log1p",
+                                 taps=taps)
+    e_86 = rel_err(out["s8_mel_dense"], out["s6_mel_banded"])
+    log(f"  T s7_full bit-identical to A: {torch.equal(out['s7_full'], y_a)}; s8 against s6 rel {e_86:.3e} "
+        f"(tol 1e-06, the banded product is exact), bit-identical: "
+        f"{torch.equal(out['s8_mel_dense'], out['s6_mel_banded'])}")
+    require(torch.equal(out["s7_full"], y_a), "T s7_full is not bit-identical to A")
+    require(e_86 <= 1e-6, "T s8_mel_dense differs from s6_mel_banded")
+    del out, y_a
+
+    # A's phase-5 time is one call of fused_melspec: _prepare_rows, then the
+    # kernel; s7_full times the kernel alone on prepared rows
+    a_row = next(r for r in kernels if r["name"] == "fused_melspec")
+    s7_ms = res["s7_full"]["ms"]
+    d_full = (s7_ms + prep_ms) / a_row["ms"] - 1.0
+    log(f"  s7_full {s7_ms:.3f} ms + _prepare_rows {prep_ms:.3f} ms against A's phase-5 {a_row['ms']:.3f} ms: "
+        f"{100 * d_full:+.1f}% (tol 10 %); s7_full alone {100 * (s7_ms / a_row['ms'] - 1):+.1f}%")
+    require(abs(d_full) <= 0.10, "T s7_full with _prepare_rows is not within 10 % of A's time")
+    plain = time_ms(lambda: spectral.melspec_forward_stage_reference(rows, "s7_full", *shape_t),
+                    max(1, args.repeats // 2))
+    kernels.append(dict(
+        name="melspec_stage", route="cuda", source="acids_transforms_tpu_torch/csrc/spectral.cu",
+        replaces="tools/sweep_kernel_floor.py:110", launches=t_launches, max_abs_err=t_err, ms=s7_ms,
+        kernel_ms=s7_ms, plain_ms=plain, bound_ms=a_row["bound_ms"], bound_by=a_row["bound_by"],
+        library_ms=a_row["library_ms"], design_fma_ceiling_ms=a_row["design_fma_ceiling_ms"]))
+    log(f"  T melspec_stage (s7_full): {s7_ms:.3f} ms, plain {plain:.3f} ms, {t_launches} launches in the "
+        f"sweep; bound and library as A's")
 
 
 def main() -> int:
@@ -2451,6 +2569,8 @@ def main() -> int:
         log(f"  K float32 against the float64 recurrence, {label}: mag * e^(i phase) off by "
             f"{e_p64:.3e} (plain) / {e_k64:.3e} (kernel) of the largest magnitude; phases off by up to "
             f"{d_ph:.3g} rad of {ph_max:.3g}")
+    sweep_phase(args, dev, mono, bank, off, scl, taps_main, kernels, bound_of,
+                (spectral, glstep, pghi_kernel, ss))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

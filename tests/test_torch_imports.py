@@ -31,6 +31,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import acids_transforms_tpu_torch.transforms.spectral_repr\n"
         "import acids_transforms_tpu_torch.streaming, acids_transforms_tpu_torch.transforms.oadd\n"
         "import acids_transforms_tpu_torch.ops.cuda.stream_step\n"
+        "import acids_transforms_tpu_torch.tools.sweep_kernel_floor\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'jaxlib' or m.startswith('acids_transforms_tpu.') or m == 'acids_transforms_tpu']\n"
         "assert not bad, bad\n"

@@ -201,7 +201,7 @@ def test_dispatch_gates_and_explicit_kernel_request():
     assert set(pk.launches) == {"fused_melspec", "fused_melspec_stats", "fused_melspec_fullk",
                                 "fused_melspec_stats_fullk", "fused_spectral_repr",
                                 "fused_spectral_repr_fullk", "fused_repr_stats",
-                                "fused_repr_stats_fullk"}
+                                "fused_repr_stats_fullk", "melspec_stage"}
     assert not any(pk.launches.values())                 # nothing launched on the CPU
 
 
