@@ -1,0 +1,312 @@
+// Shared-memory FFT of frames for Hopper (sm_90a): frames_rfft.
+//
+// Replaces the window-folded full-length product (stream_step.cu:
+// fullk_analysis, dft_common.cuh:analysis_tile with klen = n_fft) in the two
+// kernels whose TPU originals compute a windowed real DFT of every frame:
+//   stream_step.cu:session_encode_kernel<., true>  <- ops/pallas/stream_step.py:
+//       _session_forward_kernel (R) and _analyze_mag (the magnitude encode of N)
+//   spectral.cu:block_magnitudes<., kFrontFft>     <- ops/pallas/spectral.py:
+//       _forward_kernel (E) and _stats_kernel (F), full-K
+// for every n_fft that fft_covers() takes (a power of two from 64 to 4096;
+// ops/cuda/frames_fft.py:fft_covers is the wrapper's copy of the rule).  The
+// other shapes keep the product.
+//
+// What it computes.  X_r[k] = sum_n w[n] xs[r hop + n] e^{-2 pi i n k / n}
+// for k <= n / 2 of every frame r < n_frames of a sample buffer already in
+// shared memory, handed to emit(r, k, re, im): the contract of
+// fullk_analysis's emit.  Float32 throughout.
+//
+// What bounds it on this card: bytes.  An FFT needs about 2.5 n log2 n
+// operations a frame (25.6 K at n = 1024), far below the fp32 ridge of 67
+// TFLOP/s over 3.35 TB/s = 20 flop a byte; R's function at 1024/256 and 64
+// sessions x 688 frames moves 0.067 ms of bytes, E's 0.081 ms.  The product it
+// replaces did n x F x 2 multiply-adds a frame (1.05 M), 41 times an FFT's
+// operations, so its own fp32 ceiling (1.7 ms for R, 2.8 ms for E) sat above
+// the cuFFT yardstick.  This design reads the samples once (the caller's
+// buffer), reads no basis (the window and the twiddle table, n + 1.5 n floats,
+// are staged once a block), and does an FFT's operations.  What is left is
+// shared-memory traffic: each pass reads and writes the pair's 2 n floats.
+//
+// Design.
+// * Two real frames per complex FFT: frames 2j and 2j + 1 of the caller's
+//   numbering go in as z[n] = w[n] x_2j[n] + i w[n] x_2j+1[n]; the split is
+//   X_2j[k] = (Z[k] + conj Z[n-k]) / 2, X_2j+1[k] = (Z[k] - conj Z[n-k]) / 2i.
+//   An odd last frame pairs with a zero frame.
+// * A team of n / 16 threads runs one pair (two warps at n = 1024, the whole
+//   block at 4096, several teams to a warp below 512), so that each thread
+//   holds 16 complex values in registers at every size; the block's 4096 / n
+//   teams run pairs side by side, in rounds.  A team syncs with __syncwarp
+//   (one warp or less) or a named barrier (bar.sync 1 + team).  Every thread
+//   runs every round, busy or not, so the barriers see all their threads.
+// * Stockham auto-sort, radix 4, then one radix-2 pass when log2 n is odd;
+//   the result comes out in natural order.  Stage with stride s: butterfly b
+//   < n / 4 reads x[b + k n / 4], k < 4, and writes y[4 b - 3 q + s k] (q = b
+//   mod s), outputs 1-3 turned by e^{-2 pi i k (b - q) / n}.  Two stages
+//   (strides s and 4 s) share one trip through shared memory: the thread of
+//   group g = q + s p' (q < s) reads the inputs of stage-s butterflies q + s
+//   (p' + u n / 16s), u < 4, whose 16 outputs are exactly the inputs of the
+//   stage-4s butterflies q + s k + 4 s p', k < 4; it runs both in registers
+//   and writes their outputs.  The arithmetic is the two stages' own, value
+//   for value.  A last odd radix-4 stage runs alone (4 butterflies a thread);
+//   the radix-2 stage (s = n / 2) reads and writes the same two places.  In
+//   place: a thread's 16 inputs wait in registers across a team barrier.
+//   At n = 1024 that is three trips (strides 1 + 4, 16 + 64, 256) instead of
+//   five, plus the load and the split.
+// * The pair's re and im live in a per-team buffer, each 32-float block
+//   permuted by an XOR of its low 5 bits with a function of the block index
+//   (fft_swz), so that the strided writes of the first two trips (stride 16,
+//   then runs of 16 at stride 256) and the contiguous reads all fall on 32
+//   distinct banks for a warp's 32 lanes; teams that share a warp start n /
+//   32 floats apart (other banks).
+// * Twiddles: the table e^{-2 pi i j / n}, j < 3 n / 4, built in float64 on
+//   the host and rounded once (no sincos on the card, no --use_fast_math),
+//   and the window, staged once a block (fft_stage).
+// * Every product and sum is __fmul_rn / __fadd_rn / __fsub_rn: nothing is
+//   contracted, so the plain version (ops/cuda/frames_fft.py:
+//   frames_rfft_reference), which repeats these operations in this order,
+//   rounds alike.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+#include "dft_common.cuh"
+
+namespace att {
+
+constexpr int kFftMin = 64;
+constexpr int kFftMax = 4096;
+constexpr int kFftValues = 16;  // complex values a thread holds in a pass
+
+__host__ __device__ inline bool fft_covers(int n) {
+    return n >= kFftMin && n <= kFftMax && (n & (n - 1)) == 0;
+}
+
+// threads that run one FFT together
+__host__ __device__ inline int fft_team_threads(int n) { return n / kFftValues; }
+
+__host__ __device__ inline int fft_max_teams(int n) { return kThreads / fft_team_threads(n); }
+
+// one team's buffer: re and im of n values, then n / 32 floats that move the
+// next team onto other banks
+__host__ __device__ inline int fft_buf_floats(int n) { return 2 * n + n / 32; }
+
+// window, twiddles (cos and -sin, j < 3 n / 4) and the teams' buffers
+__host__ __device__ inline size_t fft_smem_floats(int n, int teams) {
+    return (size_t)n + 2 * (size_t)(3 * n / 4) + (size_t)teams * fft_buf_floats(n);
+}
+
+struct FftSmem {
+    float* win;  // [n]
+    float* twr;  // [3 n / 4]  cos(2 pi j / n)
+    float* twi;  // [3 n / 4] -sin(2 pi j / n)
+    float* buf;  // [teams][fft_buf_floats(n)]
+};
+
+__device__ __forceinline__ FftSmem carve_fft(float* base, int n) {
+    FftSmem s;
+    s.win = base;
+    s.twr = s.win + n;
+    s.twi = s.twr + 3 * n / 4;
+    s.buf = s.twi + 3 * n / 4;
+    return s;
+}
+
+// The window (n floats) and the twiddle table ((2, n) floats: cos, -sin) from
+// device memory into shared memory.  No barrier: frames_rfft starts with one.
+static __device__ void fft_stage(const float* __restrict__ window, const float* __restrict__ tw,
+                                 FftSmem s, int n) {
+    for (int i = threadIdx.x; i < n; i += kThreads) s.win[i] = __ldg(window + i);
+    const int nt = 3 * n / 4;
+    for (int i = threadIdx.x; i < nt; i += kThreads) {
+        s.twr[i] = __ldg(tw + i);
+        s.twi[i] = __ldg(tw + n + i);
+    }
+}
+
+// Where value i of a buffer lives: the same 32-float block, its offset XORed
+// with h(B) = (B mod 16) + 16 ((B >> 3) mod 2) of the block index B.  A
+// warp's stride-16 writes (two lanes a block, 16 blocks) then differ in bits
+// 0-3 across blocks and in bit 4 within one; its two runs of 16 at stride 256
+// (blocks B and B + 8) in bit 4.
+__device__ __forceinline__ int fft_swz(int i) {
+    const int B = i >> 5;
+    return i ^ ((B & 15) | ((B & 8) << 1));
+}
+
+__device__ __forceinline__ void fft_team_sync(int team, int G) {
+    if (G <= 32) {
+        __syncwarp();
+    } else {
+        asm volatile("bar.sync %0, %1;" ::"r"(team + 1), "r"(G) : "memory");
+    }
+}
+
+// One radix-4 butterfly in registers, in place: inputs (r[k], i[k]), k < 4,
+// become the outputs, 1-3 turned by the table's entries k t.
+__device__ __forceinline__ void fft_bfly4(float (&r)[4], float (&i)[4], int t, const FftSmem& s) {
+    const float apc_r = __fadd_rn(r[0], r[2]), apc_i = __fadd_rn(i[0], i[2]);
+    const float amc_r = __fsub_rn(r[0], r[2]), amc_i = __fsub_rn(i[0], i[2]);
+    const float bpd_r = __fadd_rn(r[1], r[3]), bpd_i = __fadd_rn(i[1], i[3]);
+    const float bmd_r = __fsub_rn(r[1], r[3]), bmd_i = __fsub_rn(i[1], i[3]);
+    // -i (b - d) = (bmd_i, -bmd_r)
+    float ur[4], ui[4];
+    ur[0] = __fadd_rn(apc_r, bpd_r);
+    ui[0] = __fadd_rn(apc_i, bpd_i);
+    ur[1] = __fadd_rn(amc_r, bmd_i);
+    ui[1] = __fsub_rn(amc_i, bmd_r);
+    ur[2] = __fsub_rn(apc_r, bpd_r);
+    ui[2] = __fsub_rn(apc_i, bpd_i);
+    ur[3] = __fsub_rn(amc_r, bmd_i);
+    ui[3] = __fadd_rn(amc_i, bmd_r);
+    r[0] = ur[0];
+    i[0] = ui[0];
+#pragma unroll
+    for (int k = 1; k < 4; ++k) {
+        const float wr = s.twr[k * t], wi = s.twi[k * t];
+        r[k] = __fsub_rn(__fmul_rn(ur[k], wr), __fmul_rn(ui[k], wi));
+        i[k] = __fadd_rn(__fmul_rn(ur[k], wi), __fmul_rn(ui[k], wr));
+    }
+}
+
+// The windowed real DFT of frames r < n_frames, frame r = xs[r hop, r hop + n),
+// with `teams` pairs at a time (1 <= teams <= fft_max_teams(n)); emit(r, k, re,
+// im) for every k <= n / 2.  The window and the twiddles must have been staged
+// into s (fft_stage) and the samples written to xs before the call: it starts
+// with a barrier.  It ends with one, so what emit wrote to shared memory is
+// readable on return.
+template <typename Emit>
+__device__ void frames_rfft(const float* xs, int n_frames, int hop, int n, FftSmem s, int teams,
+                            Emit emit) {
+    __syncthreads();
+    const int G = fft_team_threads(n);
+    const int team = threadIdx.x / G;
+    const int j = threadIdx.x - team * G;
+    const bool has_team = team < teams;
+    float* re = s.buf + (size_t)(has_team ? team : 0) * fft_buf_floats(n);
+    float* im = re + n;
+    const int quarter = n >> 2;
+    const int half = n >> 1;
+    const int sixteenth = n >> 4;
+    const int lg = 31 - __clz(n);
+    const int n_pairs = (n_frames + 1) >> 1;
+    const int n_rounds = (n_pairs + teams - 1) / teams;
+    for (int round = 0; round < n_rounds; ++round) {
+        const int pair = round * teams + team;
+        const bool active = has_team && pair < n_pairs;
+        const int r0 = 2 * pair;
+        const bool two = r0 + 1 < n_frames;
+        if (active) {
+            const float* x0 = xs + (size_t)r0 * hop;
+            const float* x1 = x0 + hop;
+            for (int i = j; i < n; i += G) {
+                const float w = s.win[i];
+                re[fft_swz(i)] = __fmul_rn(w, x0[i]);
+                im[fft_swz(i)] = two ? __fmul_rn(w, x1[i]) : 0.0f;
+            }
+        }
+        fft_team_sync(team, G);
+        int s_log = 0;  // log2 of the stride
+        for (int left = lg >> 1; left > 0;) {
+            float vr[4][4], vi[4][4];
+            if (left >= 2) {
+                // stages s and 4 s: group j = q + s p'; stage-s butterfly u is
+                // b_u = j + u n / 16, stage-4s butterfly k is q + s k + 4 s p'
+                const int q = j & ((1 << s_log) - 1);
+                const int ps = j - q;  // s p'
+                if (active) {
+#pragma unroll
+                    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+                        for (int k = 0; k < 4; ++k) {
+                            const int idx = fft_swz(j + u * sixteenth + k * quarter);
+                            vr[u][k] = re[idx];
+                            vi[u][k] = im[idx];
+                        }
+                    }
+                }
+                fft_team_sync(team, G);  // every read of the trip is done: write in place
+                if (active) {
+#pragma unroll
+                    for (int u = 0; u < 4; ++u) fft_bfly4(vr[u], vi[u], ps + u * sixteenth, s);
+#pragma unroll
+                    for (int k = 0; k < 4; ++k) {
+                        float br[4], bi[4];
+#pragma unroll
+                        for (int u = 0; u < 4; ++u) {
+                            br[u] = vr[u][k];
+                            bi[u] = vi[u][k];
+                        }
+                        fft_bfly4(br, bi, 4 * ps, s);
+#pragma unroll
+                        for (int k3 = 0; k3 < 4; ++k3) {
+                            const int idx = fft_swz(q + (k << s_log) + 16 * ps + (k3 << (s_log + 2)));
+                            re[idx] = br[k3];
+                            im[idx] = bi[k3];
+                        }
+                    }
+                }
+                s_log += 4;
+                left -= 2;
+            } else {
+                // one stage alone: butterflies b = j + u G, u < 4
+                if (active) {
+#pragma unroll
+                    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+                        for (int k = 0; k < 4; ++k) {
+                            const int idx = fft_swz(j + u * G + k * quarter);
+                            vr[u][k] = re[idx];
+                            vi[u][k] = im[idx];
+                        }
+                    }
+                }
+                fft_team_sync(team, G);
+                if (active) {
+                    const int smask = (1 << s_log) - 1;
+#pragma unroll
+                    for (int u = 0; u < 4; ++u) {
+                        const int b = j + u * G;
+                        const int q = b & smask;
+                        fft_bfly4(vr[u], vi[u], b - q, s);
+                        const int o = 4 * b - 3 * q;
+#pragma unroll
+                        for (int k = 0; k < 4; ++k) {
+                            const int idx = fft_swz(o + (k << s_log));
+                            re[idx] = vr[u][k];
+                            im[idx] = vi[u][k];
+                        }
+                    }
+                }
+                s_log += 2;
+                left -= 1;
+            }
+            fft_team_sync(team, G);
+        }
+        if (lg & 1) {  // the radix-2 stage, stride n / 2: no twiddle
+            if (active) {
+                for (int b = j; b < half; b += G) {
+                    const int i0 = fft_swz(b), i1 = fft_swz(b + half);
+                    const float ar = re[i0], ai = im[i0], cr = re[i1], ci = im[i1];
+                    re[i0] = __fadd_rn(ar, cr);
+                    im[i0] = __fadd_rn(ai, ci);
+                    re[i1] = __fsub_rn(ar, cr);
+                    im[i1] = __fsub_rn(ai, ci);
+                }
+            }
+            fft_team_sync(team, G);
+        }
+        if (active) {  // split the pair
+            for (int k = j; k <= half; k += G) {
+                const int ia = fft_swz(k), ib = fft_swz((n - k) & (n - 1));
+                const float a = re[ia], b = im[ia], c = re[ib], d = im[ib];
+                emit(r0, k, __fmul_rn(__fadd_rn(a, c), 0.5f), __fmul_rn(__fsub_rn(b, d), 0.5f));
+                if (two) emit(r0 + 1, k, __fmul_rn(__fadd_rn(b, d), 0.5f), __fmul_rn(__fsub_rn(c, a), 0.5f));
+            }
+        }
+        fft_team_sync(team, G);  // the buffer is free for the next round
+    }
+    __syncthreads();
+}
+
+}  // namespace att

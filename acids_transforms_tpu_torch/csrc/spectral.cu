@@ -1,10 +1,13 @@
 // Fused mel-spectrogram forward and fit statistics for Hopper (sm_90a).
 //
 // Replaces, from the JAX package's ops/pallas/spectral.py:
-//   melspec_forward_kernel<.., false>  <- _forward_kernel_factored  (via _fused_call / fused_melspec)
-//   melspec_stats_kernel<.., false>    <- _stats_kernel_factored    (via _stats_call / fused_melspec_stats)
-//   melspec_forward_kernel<.., true>   <- _forward_kernel  (full-K: any window, taps=None)
-//   melspec_stats_kernel<.., true>     <- _stats_kernel    (full-K)
+//   melspec_forward_kernel<.., kFrontFactored>  <- _forward_kernel_factored  (via _fused_call /
+//                                      fused_melspec)
+//   melspec_stats_kernel<.., kFrontFactored>    <- _stats_kernel_factored    (via _stats_call /
+//                                      fused_melspec_stats)
+//   melspec_forward_kernel<.., kFrontFft / kFrontProduct>  <- _forward_kernel  (full-K: any
+//                                      window, taps=None)
+//   melspec_stats_kernel<.., kFrontFft / kFrontProduct>    <- _stats_kernel    (full-K)
 //   repr_forward_kernel<.., false> <- _repr_kernel_factored (via _repr_call /
 //                                     fused_spectral_repr), epilogue _repr_channels
 //   repr_forward_kernel<.., true>  <- _repr_kernel          (full-K)
@@ -16,14 +19,19 @@
 //   melspec_stage_kernel<kStage> <- the stage-prefix kernel of
 //                              tools/sweep_kernel_floor.py (its pallas_call at
 //                              :110): melspec_forward_kernel<false, false,
-//                              false> cut after one of its stages
+//                              kFrontFactored> cut after one of its stages
 //
 // The full-K kernels differ from the factored ones only before the magnitude
-// (one epilogue, two front ends): frame t is the slice row[t hop, t hop +
-// n_fft) of the same padded rows against a window-folded basis of n_fft x F
-// (cos | -sin), all F bins in one fp32 product; the contraction is n_fft
-// long instead of hop, so they do `overlap` times the multiply-adds of the
-// factored kernels.  The basis (4.2 MB at n_fft 1024) stays in L2 and is
+// (one epilogue, three front ends): frame t is the slice row[t hop, t hop +
+// n_fft) of the same padded rows.  Where n_fft is a power of two from 64 to
+// 4096 (fft_smem.cuh:fft_covers) the melspec kernels E and F take the FFT
+// route, kFrontFft: fft_smem.cuh:frames_rfft over the block's frames (the
+// window and the twiddle table staged once a block, no basis read), |X| or
+// |X|^2 into the magnitudes.  Otherwise, and in the representation kernels,
+// the product route, kFrontProduct: a window-folded basis of n_fft x F (cos |
+// -sin), all F bins in one fp32 product; the contraction is n_fft long
+// instead of hop, so it does `overlap` times the multiply-adds of the
+// factored kernels.  That basis (4.2 MB at n_fft 1024) stays in L2 and is
 // streamed through shared memory in chunks of 32 rows like the chunk basis.
 //
 // What bounds them on this card: the function itself is bound by bytes (an
@@ -85,8 +93,22 @@
 #include <math.h>
 
 #include "dft_common.cuh"
+#include "fft_smem.cuh"
 
 namespace att {
+
+// Front ends of the melspec kernels
+constexpr int kFrontFactored = 0;  // chunk product, twiddle combine, taps conv (A, B)
+constexpr int kFrontProduct = 1;   // window-folded n_fft x F product (E, F where no FFT covers)
+constexpr int kFrontFft = 2;       // frames_rfft (E, F at a power of two n_fft, 64 .. 4096)
+
+// What the FFT route reads: the window (n_fft,) and the twiddle table (2,
+// n_fft), both on the device, and the FFTs a block runs side by side.
+struct FftArgs {
+    const float* win;
+    const float* tw;
+    int teams;
+};
 
 // Stages of the floor sweep, numbered as the JAX tool's (its s2, a bf16x3
 // product, has no counterpart: this product is one fp32 pass).  Each adds
@@ -122,61 +144,77 @@ __device__ void load_rows(const void* __restrict__ x_rows, size_t row0, int n_ro
 }
 
 // Magnitudes (or powers) of one block's tile_t frames into mag_s[t * F + k].
-// kStage < kStageMag cuts it short (see the stages above): kStageCopy only
-// loads the rows, kStageDots stores Cre + Cim of the chunk product in place
-// of the magnitudes, kStageCombine and kStageTaps the power.
-template <bool kInt16, bool kFullK, int kStage = kStageFull>
+// The FFT route computes only the block's first t_valid frames (the rest are
+// tile padding, which nothing reads: its frame pairs with a zero frame as in
+// frames_rfft_reference); `work` is the area after mag_s (AnaWork, or the
+// FFT's).  kStage < kStageMag cuts it short (see the stages above):
+// kStageCopy only loads the rows, kStageDots stores Cre + Cim of the chunk
+// product in place of the magnitudes, kStageCombine and kStageTaps the power.
+template <bool kInt16, int kFront, int kStage = kStageFull>
 __device__ void block_magnitudes(const void* __restrict__ x_rows, long long b, int tile,
                                  int tile_t, int n_rows_total, int hop, int overlap, int F,
                                  const float* bcos, const float* bsin, const float* twr,
                                  const float* twi, Taps taps, bool power2, float* xs,
-                                 float* mag_s, AnaWork w) {
+                                 float* mag_s, float* work, FftArgs fft, int t_valid) {
     const int tid = threadIdx.x;
     const int n_rows = tile_t + overlap - 1;
-    static_assert(!kFullK || kStage == kStageFull, "the floor sweep cuts the factored front end");
-    load_rows<kInt16>(x_rows, (size_t)b * n_rows_total + (size_t)tile * tile_t, n_rows, hop, xs);
-    if (kStage == kStageCopy) return;
+    static_assert(kFront == kFrontFactored || kStage == kStageFull,
+                  "the floor sweep cuts the factored front end");
+    if constexpr (kFront == kFrontFft) {
+        const int n_fft = overlap * hop;
+        const FftSmem fs = carve_fft(work, n_fft);
+        fft_stage(fft.win, fft.tw, fs, n_fft);  // load_rows' barrier covers it
+        load_rows<kInt16>(x_rows, (size_t)b * n_rows_total + (size_t)tile * tile_t, n_rows, hop, xs);
+        frames_rfft(xs, t_valid, hop, n_fft, fs, fft.teams, [&](int t, int k, float re, float im) {
+            const float p = __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
+            mag_s[t * F + k] = power2 ? p : sqrtf(p);
+        });  // frames_rfft ends with a barrier
+    } else {
+        const AnaWork w = carve_ana(work);
+        load_rows<kInt16>(x_rows, (size_t)b * n_rows_total + (size_t)tile * tile_t, n_rows, hop, xs);
+        if (kStage == kStageCopy) return;
 
-    const int P = taps.P;
-    const int useful = kColTile - 2 * P;
-    const int n_ct = n_col_tiles(F, P);
-    Taps conv = taps;  // kStageCombine: A's column tiles, the centre tap alone
-    if (kStage == kStageCombine) conv.P = 0;
-    const bool pow2 = kStage <= kStageTaps || power2;
-    for (int ct = 0; ct < n_ct; ++ct) {
-        if (kStage == kStageDots) {
-            chunk_product(xs, n_rows, hop, F, ct, P, bcos, bsin, w);
+        const int P = taps.P;
+        const int useful = kColTile - 2 * P;
+        const int n_ct = n_col_tiles(F, P);
+        Taps conv = taps;  // kStageCombine: A's column tiles, the centre tap alone
+        if (kStage == kStageCombine) conv.P = 0;
+        const bool pow2 = kStage <= kStageTaps || power2;
+        for (int ct = 0; ct < n_ct; ++ct) {
+            if (kStage == kStageDots) {
+                chunk_product(xs, n_rows, hop, F, ct, P, bcos, bsin, w);
+                for (int idx = tid; idx < tile_t * useful; idx += kThreads) {
+                    int t = idx / useful;
+                    int cu = idx - t * useful;
+                    int k = ct * useful + cu;
+                    if (k < F) {
+                        const int c = t * kColTile + cu + P;
+                        mag_s[t * F + k] = w.Cre[c] + w.Cim[c];
+                    }
+                }
+                continue;
+            }
+            if (kFront == kFrontProduct) {
+                analysis_tile(xs, tile_t, tile_t, hop, overlap, F, ct, P, bcos, bsin, twr, twi, w,
+                              overlap * hop);
+            } else {
+                analysis_tile(xs, n_rows, tile_t, hop, overlap, F, ct, P, bcos, bsin, twr, twi, w);
+            }
+            const int k0 = ct * useful;
             for (int idx = tid; idx < tile_t * useful; idx += kThreads) {
                 int t = idx / useful;
                 int cu = idx - t * useful;
-                int k = ct * useful + cu;
+                int k = k0 + cu;
                 if (k < F) {
-                    const int c = t * kColTile + cu + P;
-                    mag_s[t * F + k] = w.Cre[c] + w.Cim[c];
+                    float re, im;
+                    taps_at(w, conv, t, cu + P, &re, &im);
+                    float p = re * re + im * im;
+                    mag_s[t * F + k] = pow2 ? p : sqrtf(p);
                 }
             }
-            continue;
         }
-        if (kFullK) {
-            analysis_tile(xs, tile_t, tile_t, hop, overlap, F, ct, P, bcos, bsin, twr, twi, w,
-                          overlap * hop);
-        } else {
-            analysis_tile(xs, n_rows, tile_t, hop, overlap, F, ct, P, bcos, bsin, twr, twi, w);
-        }
-        const int k0 = ct * useful;
-        for (int idx = tid; idx < tile_t * useful; idx += kThreads) {
-            int t = idx / useful;
-            int cu = idx - t * useful;
-            int k = k0 + cu;
-            if (k < F) {
-                float re, im;
-                taps_at(w, conv, t, cu + P, &re, &im);
-                float p = re * re + im * im;
-                mag_s[t * F + k] = pow2 ? p : sqrtf(p);
-            }
-        }
+        __syncthreads();
     }
-    __syncthreads();
 }
 
 __device__ __forceinline__ float contrast_of(float v, int contrast) {
@@ -228,26 +266,29 @@ __device__ void emit_tile(const float* mag_s, long long b, int t_base, int F, in
     }
 }
 
-template <bool kInt16, bool kBf16, bool kFullK>
-__global__ void __launch_bounds__(kThreads)
+// On the FFT route at most 128 registers a thread, so that two blocks share an
+// SM where the wrapper's tile lets their shared memory (ops/cuda/spectral.py:
+// _pick_fft_plan).
+template <bool kInt16, bool kBf16, int kFront>
+__global__ void __launch_bounds__(kThreads, kFront == kFrontFft ? 2 : 1)
 melspec_forward_kernel(const void* __restrict__ x_rows, int n_tiles, int tile_t,
                        int n_rows_total, int hop, int overlap, int F, int T,
                        const float* bcos, const float* bsin, const float* twr,
                        const float* twi, Taps taps, int power2, int contrast,
                        const float* __restrict__ mel_bank, const int* __restrict__ mel_lo,
                        const int* __restrict__ mel_hi, int M, const float* __restrict__ aff,
-                       void* __restrict__ out) {
+                       void* __restrict__ out, FftArgs fft) {
     extern __shared__ __align__(16) float smem[];
     const int n_rows = tile_t + overlap - 1;
     float* xs = smem;
     float* mag_s = xs + (size_t)n_rows * hop;
-    AnaWork w = carve_ana(mag_s + (size_t)tile_t * F);
 
     const long long blk = blockIdx.x;
     const long long b = blk / n_tiles;
     const int tile = (int)(blk - b * n_tiles);
-    block_magnitudes<kInt16, kFullK>(x_rows, b, tile, tile_t, n_rows_total, hop, overlap, F,
-                                     bcos, bsin, twr, twi, taps, power2 != 0, xs, mag_s, w);
+    block_magnitudes<kInt16, kFront>(x_rows, b, tile, tile_t, n_rows_total, hop, overlap, F, bcos,
+                                     bsin, twr, twi, taps, power2 != 0, xs, mag_s,
+                                     mag_s + (size_t)tile_t * F, fft, min(tile_t, T - tile * tile_t));
 
     const float offset = aff[0];
     const float scale = aff[1];
@@ -281,14 +322,14 @@ melspec_stage_kernel(const float* __restrict__ x_rows, int n_tiles, int tile_t,
     const int n_rows = tile_t + overlap - 1;
     float* xs = smem;
     float* mag_s = xs + (size_t)n_rows * hop;
-    AnaWork w = carve_ana(mag_s + (size_t)tile_t * F);
 
     const long long blk = blockIdx.x;
     const long long b = blk / n_tiles;
     const int tile = (int)(blk - b * n_tiles);
-    block_magnitudes<false, false, kStage>(x_rows, b, tile, tile_t, n_rows_total, hop, overlap,
-                                           F, bcos, bsin, twr, twi, taps, power2 != 0, xs,
-                                           mag_s, w);
+    block_magnitudes<false, kFrontFactored, kStage>(x_rows, b, tile, tile_t, n_rows_total, hop,
+                                                    overlap, F, bcos, bsin, twr, twi, taps,
+                                                    power2 != 0, xs, mag_s,
+                                                    mag_s + (size_t)tile_t * F, FftArgs{}, tile_t);
     const int t_base = tile * tile_t;
     if (kStage == kStageCopy) {
         // zeros plus the block's first sample, stored as emit_tile stores
@@ -317,26 +358,26 @@ melspec_stage_kernel(const float* __restrict__ x_rows, int n_tiles, int tile_t,
     }
 }
 
-template <bool kInt16, bool kFullK>
-__global__ void __launch_bounds__(kThreads)
+template <bool kInt16, int kFront>
+__global__ void __launch_bounds__(kThreads, kFront == kFrontFft ? 2 : 1)
 melspec_stats_kernel(const void* __restrict__ x_rows, int n_tiles, int tile_t,
                      int n_rows_total, int hop, int overlap, int F, int T, const float* bcos, const float* bsin,
                      const float* twr, const float* twi, Taps taps, int contrast,
-                     float* __restrict__ partials) {
+                     float* __restrict__ partials, FftArgs fft) {
     extern __shared__ __align__(16) float smem[];
     const int n_rows = tile_t + overlap - 1;
     float* xs = smem;
     float* mag_s = xs + (size_t)n_rows * hop;
-    AnaWork w = carve_ana(mag_s + (size_t)tile_t * F);
 
     const long long blk = blockIdx.x;
     const long long b = blk / n_tiles;
     const int tile = (int)(blk - b * n_tiles);
-    block_magnitudes<kInt16, kFullK>(x_rows, b, tile, tile_t, n_rows_total, hop, overlap, F,
-                                     bcos, bsin, twr, twi, taps, false, xs, mag_s, w);
-
     // frames past T are tile padding: they stay out of the statistics
     const int t_valid = min(tile_t, T - tile * tile_t);
+    block_magnitudes<kInt16, kFront>(x_rows, b, tile, tile_t, n_rows_total, hop, overlap, F, bcos,
+                                     bsin, twr, twi, taps, false, xs, mag_s,
+                                     mag_s + (size_t)tile_t * F, fft, t_valid);
+
     float* dst = partials + (size_t)blk * 4 * F;
     for (int k = threadIdx.x; k < F; k += kThreads) {
         float s = 0.0f, ss = 0.0f, mn = INFINITY, mx = -INFINITY;
@@ -637,6 +678,27 @@ static size_t forward_smem_bytes(int tile_t, int hop, int overlap, int F) {
     return floats * sizeof(float);
 }
 
+// The FFT route: the same rows and magnitudes, then frames_rfft's area.
+static size_t forward_fft_smem_bytes(int tile_t, int hop, int overlap, int F, int teams) {
+    size_t floats = (size_t)(tile_t + overlap - 1) * hop + (size_t)tile_t * F +
+                    fft_smem_floats(overlap * hop, teams);
+    return floats * sizeof(float);
+}
+
+// The shared arguments of att_melspec_forward and att_melspec_stats: whether
+// they hold, and the route's shared memory.
+static bool melspec_args_ok(int P, int overlap, int tile_t, int hop, int fft_teams) {
+    return P < kMaxTaps && overlap >= 1 && tile_t + overlap - 1 <= kMaxRows &&
+           (tile_t == 32 || tile_t == 16 || tile_t == 8) && hop % kKC == 0 &&
+           (fft_teams == 0 || (P < 0 && fft_covers(overlap * hop) &&
+                               fft_teams <= fft_max_teams(overlap * hop)));
+}
+
+static size_t melspec_smem_bytes(int tile_t, int hop, int overlap, int F, int fft_teams) {
+    return fft_teams > 0 ? forward_fft_smem_bytes(tile_t, hop, overlap, F, fft_teams)
+                         : forward_smem_bytes(tile_t, hop, overlap, F);
+}
+
 // The representation kernels hold one chunk (the halo frame's) and one
 // spectrum row more; the statistics kernel has no channel-1 rows.
 static size_t repr_smem_bytes(int tile_t, int hop, int overlap, int F, bool stats) {
@@ -675,49 +737,58 @@ long long att_melspec_smem_bytes(int tile_t, int hop, int overlap, int F) {
     return (long long)att::forward_smem_bytes(tile_t, hop, overlap, F);
 }
 
+// The same for the FFT route with `teams` FFTs side by side.
+long long att_melspec_fft_smem_bytes(int tile_t, int hop, int overlap, int F, int teams) {
+    return (long long)att::forward_fft_smem_bytes(tile_t, hop, overlap, F, teams);
+}
+
 const char* att_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // x_rows: (B, n_rows_total, hop) float32 or int16, n_rows_total >= n_tiles * tile_t +
 // overlap - 1, tile_t one of 32, 16, 8.  out: (B, T, M or F) float32 or bfloat16.
 // P >= 0: bcos / bsin are the (hop, F) chunk basis, twr / twi the twiddles.
-// P < 0 selects the full-K front end: bcos / bsin are the window-folded
-// (n_fft, F) basis, twr / twi and taps_host are not read.  Returns a cudaError_t.
+// P < 0 selects a full-K front end, twr / twi and taps_host not read: with
+// fft_teams > 0 the FFT route (n_fft = overlap hop a power of two from 64 to
+// 4096; window (n_fft,), fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft),
+// fft_teams <= 8192 / n_fft FFTs side by side; bcos / bsin not read), with
+// fft_teams == 0 the product route (bcos / bsin the window-folded (n_fft, F)
+// basis; window / fft_tw not read).  Returns a cudaError_t.
 int att_melspec_forward(const void* x_rows, int x_int16, long long B, int n_tiles, int tile_t,
                         int n_rows_total, int hop, int overlap, int F, int T,
                         const float* bcos, const float* bsin, const float* twr,
                         const float* twi, const float* taps_host, int P, int power2,
                         int contrast, const float* mel_bank, const int* mel_lo,
                         const int* mel_hi, int M, const float* aff, void* out, int out_bf16,
-                        void* stream) {
+                        const float* window, const float* fft_tw, int fft_teams, void* stream) {
     using namespace att;
-    const bool fullk = P < 0;
-    if (P >= kMaxTaps || overlap < 1 || tile_t + overlap - 1 > kMaxRows ||
-        (tile_t != 32 && tile_t != 16 && tile_t != 8) || hop % kKC != 0) {
-        return (int)cudaErrorInvalidValue;
-    }
-    size_t smem = forward_smem_bytes(tile_t, hop, overlap, F);
-    Taps taps = fullk ? unit_taps() : make_taps(taps_host, P);
+    if (!melspec_args_ok(P, overlap, tile_t, hop, fft_teams)) return (int)cudaErrorInvalidValue;
+    const int front = P >= 0 ? kFrontFactored : (fft_teams > 0 ? kFrontFft : kFrontProduct);
+    const size_t smem = melspec_smem_bytes(tile_t, hop, overlap, F, fft_teams);
+    Taps taps = P < 0 ? unit_taps() : make_taps(taps_host, P);
+    const FftArgs fft = {window, fft_tw, fft_teams};
     dim3 grid((unsigned)(B * n_tiles));
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
-#define ATT_LAUNCH_FWD(I16, BF, FK)                                                        \
+#define ATT_LAUNCH_FWD(I16, BF, FR)                                                        \
     do {                                                                                   \
-        err = allow_smem(melspec_forward_kernel<I16, BF, FK>, smem);                       \
+        err = allow_smem(melspec_forward_kernel<I16, BF, FR>, smem);                       \
         if (err != cudaSuccess) return (int)err;                                           \
-        melspec_forward_kernel<I16, BF, FK><<<grid, kThreads, smem, s>>>(                  \
+        melspec_forward_kernel<I16, BF, FR><<<grid, kThreads, smem, s>>>(                  \
             x_rows, n_tiles, tile_t, n_rows_total, hop, overlap, F, T, bcos, bsin, twr,    \
-            twi, taps, power2, contrast, mel_bank, mel_lo, mel_hi, M, aff, out);           \
+            twi, taps, power2, contrast, mel_bank, mel_lo, mel_hi, M, aff, out, fft);      \
     } while (0)
-#define ATT_LAUNCH_FWD_FK(I16, BF)                                                         \
+#define ATT_LAUNCH_FWD_FR(I16, BF)                                                         \
     do {                                                                                   \
-        if (fullk) ATT_LAUNCH_FWD(I16, BF, true); else ATT_LAUNCH_FWD(I16, BF, false);     \
+        if (front == kFrontFft) ATT_LAUNCH_FWD(I16, BF, kFrontFft);                        \
+        else if (front == kFrontProduct) ATT_LAUNCH_FWD(I16, BF, kFrontProduct);           \
+        else ATT_LAUNCH_FWD(I16, BF, kFrontFactored);                                      \
     } while (0)
     if (x_int16) {
-        if (out_bf16) ATT_LAUNCH_FWD_FK(true, true); else ATT_LAUNCH_FWD_FK(true, false);
+        if (out_bf16) ATT_LAUNCH_FWD_FR(true, true); else ATT_LAUNCH_FWD_FR(true, false);
     } else {
-        if (out_bf16) ATT_LAUNCH_FWD_FK(false, true); else ATT_LAUNCH_FWD_FK(false, false);
+        if (out_bf16) ATT_LAUNCH_FWD_FR(false, true); else ATT_LAUNCH_FWD_FR(false, false);
     }
-#undef ATT_LAUNCH_FWD_FK
+#undef ATT_LAUNCH_FWD_FR
 #undef ATT_LAUNCH_FWD
     return (int)cudaGetLastError();
 }
@@ -769,37 +840,44 @@ int att_melspec_stage(int stage, const float* x_rows, long long B, int n_tiles, 
 }
 
 // partials: (B * n_tiles, 4, F) float32 scratch; stats: (4, F) float64 out
-// (rows: sum, sumsq, min, max per bin).  P < 0: the full-K front end, as in
-// att_melspec_forward.  Returns a cudaError_t.
+// (rows: sum, sumsq, min, max per bin).  P < 0: a full-K front end, and
+// fft_teams selects its route, as in att_melspec_forward.  Returns a
+// cudaError_t.
 int att_melspec_stats(const void* x_rows, int x_int16, long long B, int n_tiles, int tile_t,
                       int n_rows_total, int hop, int overlap, int F, int T, const float* bcos,
                       const float* bsin, const float* twr, const float* twi,
                       const float* taps_host, int P, int contrast, float* partials,
-                      double* stats, void* stream) {
+                      double* stats, const float* window, const float* fft_tw, int fft_teams,
+                      void* stream) {
     using namespace att;
-    const bool fullk = P < 0;
-    if (P >= kMaxTaps || overlap < 1 || tile_t + overlap - 1 > kMaxRows ||
-        (tile_t != 32 && tile_t != 16 && tile_t != 8) || hop % kKC != 0) {
-        return (int)cudaErrorInvalidValue;
-    }
-    size_t smem = forward_smem_bytes(tile_t, hop, overlap, F);
-    Taps taps = fullk ? unit_taps() : make_taps(taps_host, P);
+    if (!melspec_args_ok(P, overlap, tile_t, hop, fft_teams)) return (int)cudaErrorInvalidValue;
+    const int front = P >= 0 ? kFrontFactored : (fft_teams > 0 ? kFrontFft : kFrontProduct);
+    const size_t smem = melspec_smem_bytes(tile_t, hop, overlap, F, fft_teams);
+    Taps taps = P < 0 ? unit_taps() : make_taps(taps_host, P);
+    const FftArgs fft = {window, fft_tw, fft_teams};
     dim3 grid((unsigned)(B * n_tiles));
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
-#define ATT_LAUNCH_STATS(I16, FK)                                                          \
+#define ATT_LAUNCH_STATS(I16, FR)                                                          \
     do {                                                                                   \
-        err = allow_smem(melspec_stats_kernel<I16, FK>, smem);                             \
+        err = allow_smem(melspec_stats_kernel<I16, FR>, smem);                             \
         if (err != cudaSuccess) return (int)err;                                           \
-        melspec_stats_kernel<I16, FK><<<grid, kThreads, smem, s>>>(                        \
+        melspec_stats_kernel<I16, FR><<<grid, kThreads, smem, s>>>(                        \
             x_rows, n_tiles, tile_t, n_rows_total, hop, overlap, F, T, bcos, bsin, twr,    \
-            twi, taps, contrast, partials);                                                \
+            twi, taps, contrast, partials, fft);                                           \
+    } while (0)
+#define ATT_LAUNCH_STATS_FR(I16)                                                           \
+    do {                                                                                   \
+        if (front == kFrontFft) ATT_LAUNCH_STATS(I16, kFrontFft);                          \
+        else if (front == kFrontProduct) ATT_LAUNCH_STATS(I16, kFrontProduct);             \
+        else ATT_LAUNCH_STATS(I16, kFrontFactored);                                        \
     } while (0)
     if (x_int16) {
-        if (fullk) ATT_LAUNCH_STATS(true, true); else ATT_LAUNCH_STATS(true, false);
+        ATT_LAUNCH_STATS_FR(true);
     } else {
-        if (fullk) ATT_LAUNCH_STATS(false, true); else ATT_LAUNCH_STATS(false, false);
+        ATT_LAUNCH_STATS_FR(false);
     }
+#undef ATT_LAUNCH_STATS_FR
 #undef ATT_LAUNCH_STATS
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;

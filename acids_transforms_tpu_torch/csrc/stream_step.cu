@@ -30,7 +30,10 @@
 //
 // Encode: every frame's windowed DFT, written as interleaved (re, im), so the
 // caller views the output as complex with no copy; the magnitude encode writes
-// |X| = sqrt(re^2 + im^2) instead (float32, no complex pass).  Roundtrip: the analysis of
+// |X| = sqrt(re^2 + im^2) instead (float32, no complex pass).  Where
+// fft_covers(n_fft) (a power of two from 64 to 4096) the encode computes the
+// DFT with fft_smem.cuh:frames_rfft (the FFT route); other shapes keep the
+// product below (the product route).  Roundtrip: the analysis of
 // the R + overlap - 1 frames that cover a block's R output chunks into
 // [re | im] rows in shared memory (for the random mode: |X| times (cos, sin)
 // of the session's angles, read in), then the synthesis product of
@@ -40,9 +43,11 @@
 //
 // What bounds them on this card: the functions are bound by bytes (an FFT
 // per frame is 2.5 n_fft log2 n_fft operations, far below the fp32 ridge of
-// 20 flop per byte).  This design is not: it keeps the TPU kernels' full-length
-// products, n_fft * F multiply-adds per frame and direction (cos and sin),
-// about 1 M at n_fft 1024, so its own ceiling is the card's fp32 FMA rate.
+// 20 flop per byte).  The product route is not: it keeps the TPU kernels'
+// full-length products, n_fft * F multiply-adds per frame and direction (cos
+// and sin), about 1 M at n_fft 1024, so its own ceiling is the card's fp32 FMA
+// rate.  The encode's FFT route does an FFT's operations and reads no basis
+// (fft_smem.cuh).
 //
 // Design.  The analysis is the full-K product of dft_common.cuh for every
 // window (the DGT's gaussian has no cosine taps, and one design covers both
@@ -74,6 +79,7 @@
 #include <math.h>
 
 #include "dft_common.cuh"
+#include "fft_smem.cuh"
 #include "synth_ola.cuh"
 
 namespace att {
@@ -98,9 +104,11 @@ struct SessionArgs {
     const float* wc;      // (Kn, F) window-folded analysis basis, cos; zero rows past n_fft
     const float* ws;      //                                      -sin
     const float* syn;     // (overlap, Kp, hop) synthesis basis [A; B; 0] * inv_window / gain
+    const float* win;     // encode's FFT route: (n_fft,) analysis window
+    const float* fft_tw;  //                      (2, n_fft) twiddle table
     float* out;           // encode: (B, T, F, 2); roundtrip: (B, T hop); decode: (B, T hop)
     long long L;
-    int T, Ta, F, hop, overlap, Kn, Kp, rows, n_tiles;
+    int T, Ta, F, hop, overlap, Kn, Kp, rows, n_tiles, teams;
 };
 
 // xs[i] = padded[p0 + i] for i < n, where padded is (overlap - 1) hop zeros,
@@ -242,6 +250,11 @@ __host__ __device__ inline size_t encode_smem_floats(int rows, int hop, int Kn) 
     return (size_t)(rows - 1) * hop + Kn + kStageFloats;
 }
 
+// The encode's FFT route: the samples of `rows` frames, then frames_rfft's area.
+__host__ __device__ inline size_t encode_fft_smem_floats(int rows, int hop, int n_fft, int teams) {
+    return (size_t)(rows - 1) * hop + n_fft + fft_smem_floats(n_fft, teams);
+}
+
 __host__ __device__ inline size_t roundtrip_smem_floats(int rows, int overlap, int hop, int Kn,
                                                         int Kp) {
     const int n_rows = rows + overlap - 1;
@@ -254,31 +267,45 @@ __host__ __device__ inline size_t decode_smem_floats(int rows, int overlap, int 
 
 // R (kMag = false): a block owns `rows` frames t0 .. of one stream.  kMag
 // writes the magnitude, each product rounded on its own so that the plain
-// version's sqrt(re * re + im * im) repeats it.
-template <bool kMag>
-__global__ void __launch_bounds__(kThreads) session_encode_kernel(SessionArgs a) {
+// version's sqrt(re * re + im * im) repeats it.  kFft: the FFT route
+// (frames_rfft over the block's frames, pairs (2j, 2j + 1) of the block, rows
+// even, so of the session too), at most 128 registers a thread so that two
+// blocks share an SM (79 KB of shared memory each at 1024/256: 32 frames, 4
+// FFTs side by side); otherwise the product route.
+template <bool kMag, bool kFft>
+__global__ void __launch_bounds__(kThreads, kFft ? 2 : 1) session_encode_kernel(SessionArgs a) {
     extern __shared__ __align__(16) float smem[];
     const long long blk = blockIdx.x;
     const long long b = blk / a.n_tiles;
     const int t0 = (int)(blk - b * a.n_tiles) * a.rows;
     const int n_rows = min(a.rows, a.T - t0);
+    const int n_fft = a.overlap * a.hop;
+    const int klen = kFft ? n_fft : a.Kn;  // samples a frame reads
     float* xs = smem;
-    float* stage = xs + (size_t)(a.rows - 1) * a.hop + a.Kn;  // 16-byte aligned: hop % 4 == 0
+    float* work = xs + (size_t)(a.rows - 1) * a.hop + klen;  // 16-byte aligned: hop % 4 == 0
+    FftSmem fs = {};
+    if constexpr (kFft) {
+        fs = carve_fft(work, n_fft);
+        fft_stage(a.win, a.fft_tw, fs, n_fft);  // load_session_samples' barrier covers it
+    }
     load_session_samples(a.x + (size_t)b * a.L, a.L, (long long)t0 * a.hop,
-                         (a.overlap - 1) * a.hop, (n_rows - 1) * a.hop + a.Kn, xs);
+                         (a.overlap - 1) * a.hop, (n_rows - 1) * a.hop + klen, xs);
     const int F = a.F;
+    auto analysis = [&](auto emit) {
+        if constexpr (kFft) {
+            frames_rfft(xs, n_rows, a.hop, n_fft, fs, a.teams, emit);
+        } else {
+            fullk_analysis(xs, n_rows, a.hop, a.Kn, F, a.wc, a.ws, work, emit);
+        }
+    };
     if constexpr (kMag) {
         float* out = a.out + ((size_t)b * a.T + t0) * F;
-        fullk_analysis(xs, n_rows, a.hop, a.Kn, F, a.wc, a.ws, stage,
-                       [&](int r, int k, float re, float im) {
-                           out[(size_t)r * F + k] = sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
-                       });
+        analysis([&](int r, int k, float re, float im) {
+            out[(size_t)r * F + k] = sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
+        });
     } else {
         float2* out = reinterpret_cast<float2*>(a.out) + ((size_t)b * a.T + t0) * F;
-        fullk_analysis(xs, n_rows, a.hop, a.Kn, F, a.wc, a.ws, stage,
-                       [&](int r, int k, float re, float im) {
-                           out[(size_t)r * F + k] = make_float2(re, im);
-                       });
+        analysis([&](int r, int k, float re, float im) { out[(size_t)r * F + k] = make_float2(re, im); });
     }
 }
 
@@ -423,6 +450,10 @@ long long att_session_encode_smem_bytes(int rows, int hop, int Kn) {
     return (long long)(att::encode_smem_floats(rows, hop, Kn) * sizeof(float));
 }
 
+long long att_session_encode_fft_smem_bytes(int rows, int hop, int n_fft, int teams) {
+    return (long long)(att::encode_fft_smem_floats(rows, hop, n_fft, teams) * sizeof(float));
+}
+
 long long att_session_roundtrip_smem_bytes(int rows, int overlap, int hop, int Kn, int Kp) {
     return (long long)(att::roundtrip_smem_floats(rows, overlap, hop, Kn, Kp) * sizeof(float));
 }
@@ -431,34 +462,48 @@ long long att_session_decode_smem_bytes(int rows, int overlap, int Kp) {
     return (long long)(att::decode_smem_floats(rows, overlap, Kp) * sizeof(float));
 }
 
-// Kernel R (magnitude = 0) and the magnitude encode.  x (B, L) float32; wc /
-// ws (Kn, F), Kn a multiple of 32 >= n_fft, zero rows past n_fft; out (B, T,
-// F, 2), or (B, T, F) for the magnitude, every element written.  rows <= 40
-// frames per block; hop a multiple of 4.  Returns a cudaError_t.
-int att_session_encode(const float* x, const float* wc, const float* ws, float* out, long long B,
-                       long long L, int T, int F, int hop, int overlap, int Kn, int rows,
-                       int magnitude, void* stream) {
+// Kernel R (magnitude = 0) and the magnitude encode.  x (B, L) float32; out
+// (B, T, F, 2), or (B, T, F) for the magnitude, every element written; hop a
+// multiple of 4.  teams > 0 selects the FFT route: n_fft = overlap hop must be
+// a power of two from 64 to 4096, window (n_fft,) and fft_tw (2, n_fft) =
+// (cos, -sin)(2 pi j / n_fft), 1 <= teams <= 8192 / n_fft, rows even; wc / ws
+// and Kn are not read.  teams == 0 selects the product route: wc / ws (Kn, F),
+// Kn a multiple of 32 >= n_fft, zero rows past n_fft, rows <= 40 frames per
+// block; window and fft_tw are not read.  Returns a cudaError_t.
+int att_session_encode(const float* x, const float* wc, const float* ws, const float* window,
+                       const float* fft_tw, float* out, long long B, long long L, int T, int F,
+                       int hop, int overlap, int Kn, int rows, int teams, int magnitude,
+                       void* stream) {
     using namespace att;
-    if (!session_args_ok(B, T, F, hop, overlap) || Kn % kKC != 0 || rows < 1 || rows > kMaxRows) {
+    const int n_fft = overlap * hop;
+    const bool fft = teams > 0;
+    if (!session_args_ok(B, T, F, hop, overlap) || rows < 1 || F != n_fft / 2 + 1 ||
+        (fft && (!fft_covers(n_fft) || teams > fft_max_teams(n_fft) || rows % 2 != 0)) ||
+        (!fft && (Kn % kKC != 0 || rows > kMaxRows))) {
         return (int)cudaErrorInvalidValue;
     }
     SessionArgs a = {};
-    a.x = x; a.wc = wc; a.ws = ws; a.out = out;
+    a.x = x; a.wc = wc; a.ws = ws; a.win = window; a.fft_tw = fft_tw; a.out = out;
     a.L = L; a.T = T; a.F = F; a.hop = hop; a.overlap = overlap; a.Kn = Kn; a.rows = rows;
+    a.teams = teams;
     a.n_tiles = (T + rows - 1) / rows;
-    const size_t smem = (size_t)att_session_encode_smem_bytes(rows, hop, Kn);
+    const size_t smem = fft ? (size_t)att_session_encode_fft_smem_bytes(rows, hop, n_fft, teams)
+                            : (size_t)att_session_encode_smem_bytes(rows, hop, Kn);
     const dim3 grid((unsigned)(B * a.n_tiles));
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
+#define ATT_LAUNCH_ENC(MAG, FFT)                                                   \
+    do {                                                                           \
+        err = session_allow_smem(session_encode_kernel<MAG, FFT>, smem);           \
+        if (err != cudaSuccess) return (int)err;                                   \
+        session_encode_kernel<MAG, FFT><<<grid, kThreads, smem, s>>>(a);           \
+    } while (0)
     if (magnitude) {
-        err = session_allow_smem(session_encode_kernel<true>, smem);
-        if (err != cudaSuccess) return (int)err;
-        session_encode_kernel<true><<<grid, kThreads, smem, s>>>(a);
+        if (fft) ATT_LAUNCH_ENC(true, true); else ATT_LAUNCH_ENC(true, false);
     } else {
-        err = session_allow_smem(session_encode_kernel<false>, smem);
-        if (err != cudaSuccess) return (int)err;
-        session_encode_kernel<false><<<grid, kThreads, smem, s>>>(a);
+        if (fft) ATT_LAUNCH_ENC(false, true); else ATT_LAUNCH_ENC(false, false);
     }
+#undef ATT_LAUNCH_ENC
     return (int)cudaGetLastError();
 }
 

@@ -104,13 +104,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.att_error_string.restype = ctypes.c_char_p
     lib.att_melspec_smem_bytes.argtypes = [i, i, i, i]
     lib.att_melspec_smem_bytes.restype = ll
+    lib.att_melspec_fft_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.att_melspec_fft_smem_bytes.restype = ll
     lib.att_melspec_forward.argtypes = [
         p, i, ll, i, i,                  # x_rows, x_int16, B, n_tiles, tile_t
         i, i, i, i, i,                   # n_rows_total, hop, overlap, F, T
         p, p, p, p,                      # bcos, bsin, twr, twi
         ctypes.POINTER(f), i, i, i,      # taps, P, power2, contrast
         p, p, p, i,                      # mel_bank, mel_lo, mel_hi, M
-        p, p, i, p,                      # aff, out, out_bf16, stream
+        p, p, i,                         # aff, out, out_bf16
+        p, p, i, p,                      # window, fft_tw, fft_teams, stream
     ]
     lib.att_melspec_forward.restype = i
     lib.att_melspec_stats.argtypes = [
@@ -118,7 +121,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, i, i,
         p, p, p, p,
         ctypes.POINTER(f), i, i,         # taps, P, contrast
-        p, p, p,                         # partials, stats, stream
+        p, p,                            # partials, stats
+        p, p, i, p,                      # window, fft_tw, fft_teams, stream
     ]
     lib.att_melspec_stats.restype = i
     lib.att_melspec_stage.argtypes = [
@@ -191,14 +195,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.att_pghi_synthesize.restype = i
     lib.att_session_encode_smem_bytes.argtypes = [i, i, i]
     lib.att_session_encode_smem_bytes.restype = ll
+    lib.att_session_encode_fft_smem_bytes.argtypes = [i, i, i, i]
+    lib.att_session_encode_fft_smem_bytes.restype = ll
     lib.att_session_roundtrip_smem_bytes.argtypes = [i, i, i, i, i]
     lib.att_session_roundtrip_smem_bytes.restype = ll
     lib.att_session_decode_smem_bytes.argtypes = [i, i, i]
     lib.att_session_decode_smem_bytes.restype = ll
     lib.att_session_encode.argtypes = [
-        p, p, p, p,                      # x, wc, ws, out
+        p, p, p, p, p, p,                # x, wc, ws (or None), window, fft_tw (or None), out
         ll, ll, i, i, i, i, i, i,        # B, L, T, F, hop, overlap, Kn, rows
-        i, p,                            # magnitude, stream
+        i, i, p,                         # teams (0: the product route), magnitude, stream
     ]
     lib.att_session_encode.restype = i
     lib.att_session_roundtrip.argtypes = [

@@ -13,10 +13,16 @@ card.  The plain versions are written from the factored formulation
 
 Two front ends share one epilogue.  With ``taps`` (a cosine-sum window) the
 chunk-factored one runs; with ``taps=None`` and a ``window`` (any window, the
-DGT's gaussian for one) the full-K one: frame ``t`` is the slice ``row[t hop :
-t hop + n_fft]`` of the same padded rows against a basis of ``n_fft x 2F`` with
-the window folded in, ``overlap`` times the multiply-adds of the factored form.
-Both need ``hop | n_fft``.
+DGT's gaussian for one) the full-K one, where frame ``t`` is the slice ``row[t
+hop : t hop + n_fft]`` of the same padded rows.  The full-K front end of
+``fused_melspec`` and ``fused_melspec_stats`` (kernels E and F) has two
+routes, picked by ``n_fft`` alone (``frames_fft.fft_covers``): where it is a
+power of two from 64 to 4096 the FFT route (``csrc/fft_smem.cuh:frames_rfft``,
+the window and a twiddle table, no basis; plain version
+``frames_fft.frames_rfft_reference``), elsewhere the product route (a basis of
+``n_fft x 2F`` with the window folded in, ``overlap`` times the multiply-adds
+of the factored form).  ``routes`` counts E's and F's launches by route.  All
+need ``hop | n_fft``.
 
 ``fused_spectral_repr`` and ``fused_repr_stats`` are the two-channel twins
 (Polar, PolarIF, Cartesian): one DFT feeds channel 1 (``|X|`` through mel,
@@ -46,6 +52,7 @@ from ..fft import (
     _twiddles,
 )
 from . import _build
+from .frames_fft import fft_covers, fft_max_teams, fft_smem_floats, fft_twiddles, frames_rfft_reference
 
 __all__ = [
     "fused_melspec",
@@ -61,11 +68,13 @@ __all__ = [
     "melspec_forward_stage_reference",
     "STAGES",
     "launches",
+    "routes",
     "reset_launches",
 ]
 
 TILES = (32, 16, 8)               # frames per block the kernels can run, widest first
 MAX_SMEM = 232448                 # bytes of shared memory a block may use on sm_90
+TWO_BLOCKS_SMEM = 233472 // 2 - 1024   # a block's share when two run on one SM (1 KB reserved each)
 _CONTRASTS = {"none": 0, None: 0, "log1p": 1}
 
 #: kernel launches made by the wrappers of this module, by kernel
@@ -76,19 +85,33 @@ launches: Dict[str, int] = {
     "fused_repr_stats": 0, "fused_repr_stats_fullk": 0,
     "melspec_stage": 0,
 }
+#: E's and F's launches by route, ``"<kernel>:fft"`` / ``"<kernel>:product"``
+#: (each also counts in ``launches``)
+routes: Dict[str, int] = {
+    "fused_melspec_fullk:fft": 0, "fused_melspec_fullk:product": 0,
+    "fused_melspec_stats_fullk:fft": 0, "fused_melspec_stats_fullk:product": 0,
+}
 #: channel-2 selectors of the representation kernels
 SECONDS = {"phase": 0, "if": 1, "imag": 2}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for d in (launches, routes):
+        for k in d:
+            d[k] = 0
 
 
 def _smem_bytes(tile_t: int, hop: int, overlap: int, n_bins: int) -> int:
-    """Shared memory of one block, as ``csrc/spectral.cu`` lays it out."""
+    """Shared memory of one block on the factored and the product route, as
+    ``csrc/spectral.cu`` lays it out."""
     work = 2 * 32 * 128 + 2 * 40 * 128 + 2 * 32 * 128 + 2 * 128
     return 4 * ((tile_t + overlap - 1) * hop + tile_t * n_bins + work)
+
+
+def _fft_smem_bytes(tile_t: int, hop: int, overlap: int, n_bins: int, teams: int) -> int:
+    """Shared memory of one block of E or F on the FFT route: the same rows
+    and magnitudes, then ``frames_rfft``'s window, twiddles and buffers."""
+    return 4 * ((tile_t + overlap - 1) * hop + tile_t * n_bins + fft_smem_floats(overlap * hop, teams))
 
 
 def _pick_tile(hop: int, overlap: int, n_bins: int) -> Optional[int]:
@@ -98,6 +121,24 @@ def _pick_tile(hop: int, overlap: int, n_bins: int) -> Optional[int]:
     for tile_t in TILES:
         if _smem_bytes(tile_t, hop, overlap, n_bins) <= MAX_SMEM:
             return tile_t
+    return None
+
+
+def _pick_fft_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
+    """``(tile_t, teams)`` of E and F on the FFT route: the widest frame tile
+    whose block leaves room for a second one on the SM (``TWO_BLOCKS_SMEM``:
+    the kernels run at most 128 registers a thread there, so shared memory
+    decides), with as many FFTs side by side as 256 threads run (``4096 /
+    n_fft``) or fewer; else the widest that fits shared memory at all; or
+    None.  At 1024/256: 16 frames, 4 FFTs."""
+    overlap, n_bins = n_fft // hop, n_fft // 2 + 1
+    for limit in (TWO_BLOCKS_SMEM, MAX_SMEM):
+        for tile_t in TILES:
+            teams = fft_max_teams(n_fft)
+            while teams >= 1:
+                if _fft_smem_bytes(tile_t, hop, overlap, n_bins, teams) <= limit:
+                    return tile_t, teams
+                teams //= 2
     return None
 
 
@@ -193,19 +234,25 @@ def _fullk_basis(window: torch.Tensor, n_fft: int) -> Tuple[torch.Tensor, torch.
     return (w * C).contiguous(), (w * S).contiguous()
 
 
-def _fullk_spectrum(x, n_fft, hop, center, window):
+def _fullk_spectrum(x, n_fft, hop, center, window, *, fft: bool):
     """(re, im) of the windowed STFT, the full-K kernels' front end: frames
-    are overlapping slices of the prepared rows, the window lies in the basis."""
+    are overlapping slices of the prepared rows.  ``fft`` and
+    ``fft_covers(n_fft)``: the FFT route's schedule
+    (``frames_rfft_reference``); otherwise the window lies in the basis."""
     rows, T, _ = _prepare_rows(x, n_fft, hop, center)
     flat = _rows_to_float(rows).reshape(rows.shape[0], -1)
     frames = flat.unfold(-1, n_fft, hop)[:, :T]
+    if fft and fft_covers(n_fft):
+        return frames_rfft_reference(frames, window.to(x.device))
     WC, WS = _fullk_basis(window.to(x.device), n_fft)
     return torch.matmul(frames, WC), torch.matmul(frames, WS)
 
 
-def _spectrum(x, n_fft, hop, center, taps, window):
+def _spectrum(x, n_fft, hop, center, taps, window, *, fft: bool):
+    """(re, im) of the front end ``taps`` selects; ``fft=False`` keeps the
+    full-K product at every ``n_fft`` (the representation kernels')."""
     if taps is None:
-        return _fullk_spectrum(x, n_fft, hop, center, window)
+        return _fullk_spectrum(x, n_fft, hop, center, window, fft=fft)
     return _factored_spectrum(x, n_fft, hop, center, taps)
 
 
@@ -250,7 +297,7 @@ def fused_melspec_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_melspec` (same arguments)."""
     _check_input(x, n_fft, hop_length, taps, window)
-    re, im = _spectrum(x, n_fft, hop_length, center, taps, window)
+    re, im = _spectrum(x, n_fft, hop_length, center, taps, window, fft=True)
     mag = re * re + im * im
     if power != 2.0:
         mag = torch.sqrt(mag)
@@ -272,7 +319,7 @@ def fused_melspec_stats_reference(
     """Plain PyTorch version of :func:`fused_melspec_stats`."""
     x = x.reshape((-1, x.shape[-1]))
     _check_input(x, n_fft, hop_length, taps, window)
-    re, im = _spectrum(x, n_fft, hop_length, center, taps, window)
+    re, im = _spectrum(x, n_fft, hop_length, center, taps, window, fft=True)
     v = _apply_contrast(torch.sqrt(re * re + im * im), contrast)
     vd = v.double()
     return {
@@ -308,25 +355,51 @@ def _mel_band(bank: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hit
 
 
-def _front_end(device, n_fft, hop, taps, window):
-    """What the entry points take for the front end: the two basis tensors,
-    the twiddle pointers (None for full-K), the taps array and ``P`` (-1
-    selects the full-K front end)."""
+def _front_end(device, n_fft, hop, taps, window, *, fft: bool):
+    """What the entry points take for the front end: the two basis tensors
+    (None on the FFT route), the twiddle pointers (None for full-K), the taps
+    array, ``P`` (-1 selects a full-K front end) and the FFT route's window
+    and twiddle table (None elsewhere).  ``fft``: the full-K front end takes
+    the FFT route."""
+    if taps is None and fft:
+        win = window.to(device=device, dtype=torch.float32).contiguous()
+        (tw,) = _tables(fft_twiddles, device, n_fft)
+        return (None, None), None, None, (ctypes.c_float * 5)(), -1, (win, tw)
     if taps is None:
         WC, WS = _fullk_basis(window.to(device), n_fft)
-        return (WC, WS), None, None, (ctypes.c_float * 5)(), -1
+        return (WC, WS), None, None, (ctypes.c_float * 5)(), -1, (None, None)
     Ch, Sh = _tables(_chunk_dft_matrices, device, n_fft, hop)
     twr, twi = _tables(_twiddles, device, n_fft, hop)
     taps_c, P = _build.taps_array(taps)
-    return (Ch, Sh), twr.data_ptr(), twi.data_ptr(), taps_c, P
+    return (Ch, Sh), twr.data_ptr(), twi.data_ptr(), taps_c, P, (None, None)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
+def _kernel_plan(n_fft, hop, taps) -> Tuple[int, int]:
+    """``(tile_t, teams)`` for this shape, ``teams = 0`` off the FFT route
+    (which ``taps=None`` and ``fft_covers(n_fft)`` select), or raise: the
+    kernels never give way."""
+    if taps is None and fft_covers(n_fft) and fused_melspec_available(n_fft, hop, taps):
+        plan = _pick_fft_plan(n_fft, hop)
+        if plan is None:
+            raise NotImplementedError(
+                "the CUDA melspec kernels' FFT route holds one block's tile in shared "
+                "memory, which n_fft=%d hop=%d exceeds; use backend='eager'" % (n_fft, hop)
+            )
+        return plan
+    return _kernel_tile(n_fft, hop, taps), 0
+
+
 def _kernel_tile(n_fft, hop, taps) -> int:
-    """The frame tile for this shape, or raise: the kernels never give way."""
+    """The frame tile of the factored and the product route for this shape,
+    or raise: the kernels never give way."""
     if not fused_melspec_available(n_fft, hop, taps):
         raise ValueError(
             "the CUDA melspec kernels do not cover n_fft=%d hop=%d (need "
@@ -383,7 +456,7 @@ def fused_melspec(
             taps, power, out_dtype, window,
         )
     _check_input(x, n_fft, hop_length, taps, window)
-    tile_t = _kernel_tile(n_fft, hop_length, taps)
+    tile_t, teams = _kernel_plan(n_fft, hop_length, taps)
     if contrast not in _CONTRASTS:
         _apply_contrast(x, contrast)  # raises with the reason
     if out_dtype not in (torch.float32, torch.bfloat16):
@@ -394,7 +467,8 @@ def fused_melspec(
     F = n_fft // 2 + 1
     rows, T, n_tiles = _prepare_rows(x, n_fft, hop_length, center, tile_t)
     B = rows.shape[0]
-    (bc, bs), twr_p, twi_p, taps_c, P = _front_end(dev, n_fft, hop_length, taps, window)
+    (bc, bs), twr_p, twi_p, taps_c, P, (win, tw) = _front_end(dev, n_fft, hop_length, taps, window,
+                                                              fft=teams > 0)
     if mel_bank is not None:
         if mel_bank.device != dev or mel_bank.dtype != torch.float32 or mel_bank.shape[0] != F:
             raise ValueError("mel_bank must be float32 (n_bins, n_mels) on the input's device")
@@ -414,15 +488,21 @@ def fused_melspec(
         code = lib.att_melspec_forward(
             rows.data_ptr(), int(rows.dtype == torch.int16), B, n_tiles, tile_t,
             rows.shape[1], hop_length, n_fft // hop_length, F, T,
-            bc.data_ptr(), bs.data_ptr(), twr_p, twi_p,
+            _ptr(bc), _ptr(bs), twr_p, twi_p,
             taps_c, P, int(power == 2.0), _CONTRASTS[contrast],
             bank_p, lo_p, hi_p, M, aff.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.bfloat16), _stream(),
+            int(out_dtype == torch.bfloat16), _ptr(win), _ptr(tw), teams, _stream(),
         )
     name = "fused_melspec" if taps is not None else "fused_melspec_fullk"
     _build.check(code, name)
-    launches[name] += 1
+    _count(name, taps, teams)
     return out
+
+
+def _count(name: str, taps, teams: int) -> None:
+    launches[name] += 1
+    if taps is None:
+        routes[name + (":fft" if teams else ":product")] += 1
 
 
 def fused_melspec_stats(
@@ -449,14 +529,15 @@ def fused_melspec_stats(
     if not x.is_cuda:
         return fused_melspec_stats_reference(x, n_fft, hop_length, contrast, center, taps, window)
     _check_input(x, n_fft, hop_length, taps, window)
-    tile_t = _kernel_tile(n_fft, hop_length, taps)
+    tile_t, teams = _kernel_plan(n_fft, hop_length, taps)
     if contrast not in _CONTRASTS:
         _apply_contrast(x, contrast)  # raises with the reason
     dev = x.device
     F = n_fft // 2 + 1
     rows, T, n_tiles = _prepare_rows(x, n_fft, hop_length, center, tile_t)
     B = rows.shape[0]
-    (bc, bs), twr_p, twi_p, taps_c, P = _front_end(dev, n_fft, hop_length, taps, window)
+    (bc, bs), twr_p, twi_p, taps_c, P, (win, tw) = _front_end(dev, n_fft, hop_length, taps, window,
+                                                              fft=teams > 0)
     partials = torch.empty((B * n_tiles, 4, F), dtype=torch.float32, device=dev)
     stats = torch.empty((4, F), dtype=torch.float64, device=dev)
     lib = _build.load_library()
@@ -464,13 +545,13 @@ def fused_melspec_stats(
         code = lib.att_melspec_stats(
             rows.data_ptr(), int(rows.dtype == torch.int16), B, n_tiles, tile_t,
             rows.shape[1], hop_length, n_fft // hop_length, F, T,
-            bc.data_ptr(), bs.data_ptr(), twr_p, twi_p,
+            _ptr(bc), _ptr(bs), twr_p, twi_p,
             taps_c, P, _CONTRASTS[contrast], partials.data_ptr(),
-            stats.data_ptr(), _stream(),
+            stats.data_ptr(), _ptr(win), _ptr(tw), teams, _stream(),
         )
     name = "fused_melspec_stats" if taps is not None else "fused_melspec_stats_fullk"
     _build.check(code, name)
-    launches[name] += 1
+    _count(name, taps, teams)
     return {
         "sum": stats[0].sum(),
         "sumsq": stats[1].sum(),
@@ -522,7 +603,7 @@ def _if_rows(ph: torch.Tensor, weighted: bool) -> torch.Tensor:
 
 def _repr_channels(x, n_fft, hop, center, taps, window, second, contrast, mel_bank, weighted):
     """Pre-affine (channel 1, channel 2) of the representation kernels."""
-    re, im = _spectrum(x, n_fft, hop, center, taps, window)
+    re, im = _spectrum(x, n_fft, hop, center, taps, window, fft=False)
     im = _pin_nyquist(im)
     if second == "imag":
         return re, im
@@ -609,7 +690,7 @@ def _launch_repr(x, n_fft, hop, second, taps, window, contrast, weighted, center
     F = n_fft // 2 + 1
     rows, T, n_tiles = _prepare_rows(x, n_fft, hop, center, tile_t, lead=1)
     B = rows.shape[0]
-    (bc, bs), twr_p, twi_p, taps_c, P = _front_end(dev, n_fft, hop, taps, window)
+    (bc, bs), twr_p, twi_p, taps_c, P, _ = _front_end(dev, n_fft, hop, taps, window, fft=False)
     bank_p = lo_p = hi_p = None
     if mel_bank is not None:
         if mel_bank.device != dev or mel_bank.dtype != torch.float32 or tuple(mel_bank.shape) != (F, F):
@@ -828,7 +909,7 @@ def melspec_forward_stage(
     s, tile_t, n_tiles = _stage_shape(rows, stage, n_fft, hop_length, n_frames, taps, mel_bank)
     dev = rows.device
     B, F = rows.shape[0], n_fft // 2 + 1
-    (bc, bs), twr_p, twi_p, taps_c, P = _front_end(dev, n_fft, hop_length, taps, None)
+    (bc, bs), twr_p, twi_p, taps_c, P, _ = _front_end(dev, n_fft, hop_length, taps, None, fft=False)
     bank = mel_bank.contiguous()
     lo, hi = _mel_band(bank)
     M = bank.shape[1]

@@ -5,7 +5,12 @@ to three kernel launches instead of a Python loop of small ops per chunk
 (``streaming.py``).  The sessions:
 
 * ``make_fused_forward_session`` (kernel R): encode, audio ``(..., L)`` ->
-  complex frames ``(..., T, F)`` and the chain's final state;
+  complex frames ``(..., T, F)`` and the chain's final state.  Where
+  ``frames_fft.fft_covers(n_fft)`` (a power of two from 64 to 4096) the
+  encode and the magnitude encode take the FFT route
+  (``csrc/fft_smem.cuh:frames_rfft``: the window and a twiddle table, no
+  basis); every other ``n_fft`` the product route (the window-folded
+  ``(Kn, F)`` basis).  The rule reads ``n_fft`` alone;
 * ``make_fused_roundtrip`` (L): the complex roundtrip, audio -> audio;
 * ``make_fused_random_roundtrip`` (M): the ``random`` roundtrip (the
   reference's default realtime mode), ``|X|`` with the session's angles;
@@ -46,9 +51,10 @@ its output the overlap-add of all synthesis frames at hop stride, cut at
 by OverlapAdd's ``gain_compensation`` (the chunked loop divides after the
 overlap-add: the two differ by rounding).  On a CUDA tensor each session
 launches its kernel or raises; on a CPU tensor it runs the plain PyTorch
-version beside it (``session_*_reference``: materialized frames, ``torch.matmul``
-against the windowed bases in float32, ``ops/framing.overlap_add``), which is
-also what the kernels are held against on the card.
+version beside it (``session_*_reference``: materialized frames, the analysis
+as ``frames_fft.frames_rfft_reference`` on the FFT route and ``torch.matmul``
+against the windowed bases elsewhere, in float32, ``ops/framing.overlap_add``),
+which is also what the kernels are held against on the card.
 
 Gates.  ``fused_*_available`` keep the JAX package's structural conditions:
 ``OverlapAdd`` and a ``RealtimeSTFT``-family transform with the same ``(n_fft,
@@ -108,6 +114,7 @@ from ..fft import _dft_matrices, _idft_matrices, _tables
 from ..framing import frame, overlap_add
 from ..pghi import EPS, random_angles
 from . import _build
+from .frames_fft import fft_covers, fft_max_teams, fft_smem_floats, fft_twiddles, frames_rfft_reference
 from .pghi_kernel import _bins_per_thread, _fill_frame, ola_supported
 
 __all__ = [
@@ -123,7 +130,7 @@ __all__ = [
     "kernel_covers", "session_rows", "session_angles", "rt_pghi_phases", "gl_project",
     "session_encode_reference", "session_roundtrip_reference", "session_decode_reference",
     "session_magnitude_reference", "rt_pghi_phases_reference", "session_complex_decode_reference",
-    "gl_project_reference", "session_pghi_gl_reference", "launches", "reset_launches",
+    "gl_project_reference", "session_pghi_gl_reference", "launches", "routes", "reset_launches",
 ]
 
 MAX_SMEM = 232448                 # bytes of shared memory a block may use on sm_90
@@ -142,11 +149,18 @@ launches: Dict[str, int] = {
     "session_magnitude": 0, "rt_pghi_phases": 0, "session_complex_decode": 0,
     "rt_pghi_seeded": 0, "gl_project_synthesis": 0, "gl_project_analysis": 0,
 }
+#: the encode's launches by route, ``"<kernel>:fft"`` / ``"<kernel>:product"``
+#: (each also counts in ``launches``)
+routes: Dict[str, int] = {
+    "session_encode:fft": 0, "session_encode:product": 0,
+    "session_magnitude:fft": 0, "session_magnitude:product": 0,
+}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for d in (launches, routes):
+        for k in d:
+            d[k] = 0
 
 
 # ------------------------------------------------------------------ gates
@@ -279,8 +293,15 @@ def _k_analysis(n_fft: int) -> int:
 
 
 def _encode_smem_bytes(rows: int, hop: int, kn: int) -> int:
-    """Shared memory of one encode block, as ``csrc/stream_step.cu`` lays it out."""
+    """Shared memory of one encode block on the product route, as
+    ``csrc/stream_step.cu`` lays it out."""
     return 4 * ((rows - 1) * hop + kn + _STAGE)
+
+
+def _encode_fft_smem_bytes(rows: int, hop: int, n_fft: int, teams: int) -> int:
+    """Shared memory of one encode block on the FFT route: the samples of
+    ``rows`` frames, then ``frames_rfft``'s window, twiddles and buffers."""
+    return 4 * ((rows - 1) * hop + n_fft + fft_smem_floats(n_fft, teams))
 
 
 def _roundtrip_smem_bytes(rows: int, overlap: int, hop: int, kn: int, kp: int) -> int:
@@ -321,6 +342,29 @@ def _pick_rows(kind: str, n_fft: int, hop: int) -> Optional[int]:
     return _best_rows(fit, overlap)
 
 
+@functools.lru_cache(maxsize=None)
+def _encode_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
+    """``(rows, teams)`` of the encode's launch, or None when no block fits.
+    The FFT route (``fft_covers(n_fft)``): as many FFTs side by side as 256
+    threads run (``4096 / n_fft``), and a block of four rounds of them (8
+    frames per FFT: measured fastest at 1024/256 among 1, 2, 4 and 8 rounds,
+    two blocks to an SM), fewer rounds and then fewer FFTs where that does
+    not fit; the product route: ``teams = 0`` and :func:`_pick_rows`'s
+    height."""
+    if not fft_covers(n_fft):
+        rows = _pick_rows("encode", n_fft, hop)
+        return None if rows is None else (rows, 0)
+    teams = fft_max_teams(n_fft)
+    while teams >= 1:
+        rows = 8 * teams
+        while rows >= 2:
+            if _encode_fft_smem_bytes(rows, hop, n_fft, teams) <= MAX_SMEM:
+                return rows, teams
+            rows //= 2
+        teams //= 2
+    return None
+
+
 def _project_frames_fit(n_fft: int, hop: int, rows: int) -> bool:
     """Whether O's projection analysis takes a grid of ``rows`` polished
     frames (``T_c + lookahead``): at most 40, whose samples fit shared memory."""
@@ -339,13 +383,16 @@ def kernel_covers(kind: str, n_fft: int, hop: int, rows: Optional[int] = None) -
         return n_fft % hop == 0 and _bins_per_thread(n_fft // 2 + 1) is not None
     if kind == "project":
         return kernel_covers("decode", n_fft, hop) and _project_frames_fit(n_fft, hop, int(rows))
+    if kind == "encode":
+        return hop % 4 == 0 and n_fft % hop == 0 and _encode_plan(n_fft, hop) is not None
     return hop % 4 == 0 and n_fft % hop == 0 and _pick_rows(kind, n_fft, hop) is not None
 
 
 def _require(kind: str, n_fft: int, hop: int, rows: Optional[int] = None) -> Optional[int]:
     """The block height of ``kind`` (None for the recurrence and the
-    projection), or raise: a shape the structural gate lets through is never
-    quietly computed some other way."""
+    projection; for the encode, the product route's: the FFT route's plan is
+    :func:`_encode_plan`'s), or raise: a shape the structural gate lets
+    through is never quietly computed some other way."""
     if kernel_covers(kind, n_fft, hop, rows):
         return None if kind in ("recurrence", "project") else _pick_rows(kind, n_fft, hop)
     need = {
@@ -393,6 +440,16 @@ def _ana_basis(window: torch.Tensor, n_fft: int, rows: Optional[int] = None):
             torch.nn.functional.pad(w * S, pad).contiguous())
 
 
+def _encode_operands(window: torch.Tensor, n_fft: int):
+    """What the encode reads besides the signal: on the FFT route the window
+    ``(n_fft,)`` and the twiddle table ``(2, n_fft)``, on the product route the
+    window-folded basis ``(Kn, F)`` x 2."""
+    if fft_covers(n_fft):
+        (tw,) = _tables(fft_twiddles, window.device, n_fft)
+        return window.to(torch.float32).contiguous(), tw
+    return _ana_basis(window, n_fft, _k_analysis(n_fft))
+
+
 def _syn_mats(inv_window: torch.Tensor, gain: float, n_fft: int):
     """Inverse real-DFT matrices ``(F, n_fft)`` with ``inv_window / gain``
     folded in."""
@@ -429,8 +486,12 @@ def _angles_3d(angles: torch.Tensor, B: int, n_frames: int, n_bins: int, device)
 # ---------------------------------------------------------- plain versions
 def session_encode_reference(x2d, window, n_fft: int, hop: int, n_frames: int):
     """Plain version of kernel R: ``(re, im)`` of the session's ``n_frames``
-    frames, each ``(B, n_frames, F)``."""
+    frames, each ``(B, n_frames, F)``: ``frames_rfft_reference`` where
+    ``fft_covers(n_fft)`` (the FFT route's schedule), else the products with
+    the window-folded basis."""
     frames = frame(session_rows(x2d, n_fft, hop, n_frames), n_fft, hop)
+    if fft_covers(n_fft):
+        return frames_rfft_reference(frames, window.to(x2d.device))
     WC, WS = _ana_basis(window.to(x2d.device), n_fft)
     return torch.matmul(frames, WC), torch.matmul(frames, WS)
 
@@ -541,22 +602,32 @@ def rt_pghi_phases_reference(mag, angles, gamma: float, n_fft: int, hop: int, to
 
 
 # ---------------------------------------------------------------- launches
-def _launch_encode(x2d, WC, WS, n_fft, hop, T, magnitude: bool = False) -> torch.Tensor:
+def _launch_encode(x2d, ops, n_fft, hop, T, magnitude: bool = False) -> torch.Tensor:
     """R: ``(B, T, F, 2)`` interleaved ``(re, im)``; ``magnitude``: ``|X|``
-    ``(B, T, F)``."""
-    rows = _require("encode", n_fft, hop)
+    ``(B, T, F)``.  ``ops``: :func:`_encode_operands`, whose route
+    ``fft_covers(n_fft)`` picks."""
+    _require("encode", n_fft, hop)
+    rows, teams = _encode_plan(n_fft, hop)
     B, F = x2d.shape[0], n_fft // 2 + 1
+    a, b = ops
+    if teams:
+        if tuple(a.shape) != (n_fft,) or tuple(b.shape) != (2, n_fft):
+            raise ValueError("the encode's FFT route takes the window (n_fft,) and the twiddle table (2, n_fft)")
+        ptrs, kn = (None, None, a.data_ptr(), b.data_ptr()), 0
+    else:
+        ptrs, kn = (a.data_ptr(), b.data_ptr(), None, None), a.shape[0]
     shape = (B, T, F) if magnitude else (B, T, F, 2)
     out = torch.empty(shape, dtype=torch.float32, device=x2d.device)
     lib = _build.load_library()
     with torch.cuda.device(x2d.device):
         code = lib.att_session_encode(
-            x2d.data_ptr(), WC.data_ptr(), WS.data_ptr(), out.data_ptr(), B, x2d.shape[1], T, F,
-            hop, n_fft // hop, WC.shape[0], rows, int(magnitude), _stream(),
+            x2d.data_ptr(), *ptrs, out.data_ptr(), B, x2d.shape[1], T, F,
+            hop, n_fft // hop, kn, rows, teams, int(magnitude), _stream(),
         )
     name = "session_magnitude" if magnitude else "session_encode"
     _build.check(code, name)
     launches[name] += 1
+    routes[name + (":fft" if teams else ":product")] += 1
     return out
 
 
@@ -728,13 +799,17 @@ class _Session:
     def analysis(self):
         return _ana_basis(self.rt.window, self.n_fft, _k_analysis(self.n_fft))
 
+    def encode_operands(self):
+        return _encode_operands(self.rt.window, self.n_fft)
+
     def synthesis(self):
         return _syn_basis(self.rt.inv_window, self.gain, self.n_fft, self.hop)
 
-    def magnitude(self, xb: torch.Tensor, WC, WS, T: int) -> torch.Tensor:
-        """``|X|`` ``(B, T, F)`` of the session's frames."""
+    def magnitude(self, xb: torch.Tensor, ops, T: int) -> torch.Tensor:
+        """``|X|`` ``(B, T, F)`` of the session's frames (``ops``:
+        :meth:`encode_operands`)."""
         if xb.is_cuda:
-            return _launch_encode(xb, WC, WS, self.n_fft, self.hop, T, magnitude=True)
+            return _launch_encode(xb, ops, self.n_fft, self.hop, T, magnitude=True)
         return session_magnitude_reference(xb, self.rt.window, self.n_fft, self.hop, T)
 
     def pghi_decode(self, mag: torch.Tensor, angles: torch.Tensor, syn, T: int) -> torch.Tensor:
@@ -837,7 +912,7 @@ def make_fused_forward_session(chain, chunk_size: int):
     holding the chunk-padded signal's last ``(overlap - 1) hop`` samples."""
     s = _Session(chain, chunk_size // chain.transforms[1].hop_length)
     n_fft, hop = s.n_fft, s.hop
-    WC, WS = s.analysis()
+    ops = s.encode_operands()
 
     def run(x: torch.Tensor):
         batch_shape = tuple(x.shape[:-1])
@@ -846,7 +921,7 @@ def make_fused_forward_session(chain, chunk_size: int):
         T = n_chunks * s.T_c
         xb = _flat(x)
         if xb.is_cuda:
-            spec = torch.view_as_complex(_launch_encode(xb, WC, WS, n_fft, hop, T))
+            spec = torch.view_as_complex(_launch_encode(xb, ops, n_fft, hop, T))
         else:
             re, im = session_encode_reference(xb, s.rt.window, n_fft, hop, T)
             spec = torch.complex(re, im)
@@ -945,12 +1020,12 @@ def make_fused_magnitude_session(chain, chunk_size: int):
     R's analysis with an ``|X|`` epilogue; equal to ``scan_forward(chain, x,
     chunk_size)[0].abs()`` up to float32 rounding."""
     s = _Session(chain, chunk_size // chain.transforms[1].hop_length)
-    WC, WS = s.analysis()
+    ops = s.encode_operands()
 
     def run(x: torch.Tensor) -> torch.Tensor:
         T = -(-x.shape[-1] // chunk_size) * s.T_c
         xb = _flat(x)
-        return s.magnitude(xb, WC, WS, T).reshape(tuple(x.shape[:-1]) + (T, s.F))
+        return s.magnitude(xb, ops, T).reshape(tuple(x.shape[:-1]) + (T, s.F))
 
     return run
 
@@ -966,7 +1041,7 @@ def make_fused_pghi_roundtrip(chain, chunk_size: int, generator: Optional[torch.
     up to float32 rounding and the anchor decisions that rounding can flip at
     a threshold (then by quality)."""
     s = _Session(chain, chunk_size // chain.transforms[1].hop_length)
-    WC, WS = s.analysis()
+    ops = s.encode_operands()
     syn = s.synthesis()
 
     def run(x: torch.Tensor) -> torch.Tensor:
@@ -978,7 +1053,7 @@ def make_fused_pghi_roundtrip(chain, chunk_size: int, generator: Optional[torch.
             s.require("encode", "recurrence", "decode")
         a = (session_angles(batch_shape, n_chunks, s.T_c, s.F, xb.device, generator)
              if angles is None else _angles_3d(angles, xb.shape[0], T, s.F, xb.device))
-        y = s.pghi_decode(s.magnitude(xb, WC, WS, T), a, syn, T)
+        y = s.pghi_decode(s.magnitude(xb, ops, T), a, syn, T)
         return y.reshape(batch_shape + (T * s.hop,))
 
     return run
@@ -1052,7 +1127,7 @@ def make_fused_pghi_gl_roundtrip(chain, chunk_size: int, generator: Optional[tor
     inversion_mode="pghi_gl", generator=g)`` with a generator in the same
     state, up to float32 rounding and the anchor decisions it can flip."""
     s = _Session(chain, chunk_size // chain.transforms[1].hop_length)
-    WC, WS = s.analysis()
+    ops = s.encode_operands()
     syn = s.synthesis()
 
     def run(x: torch.Tensor) -> torch.Tensor:
@@ -1063,7 +1138,7 @@ def make_fused_pghi_gl_roundtrip(chain, chunk_size: int, generator: Optional[tor
         if xb.is_cuda:
             s.require("encode", "recurrence", "decode", "project")
         a = _gl_angles(s, batch_shape, n_chunks, xb.shape[0], xb.device, generator, angles)
-        y = s.pghi_gl_decode(s.magnitude(xb, WC, WS, T), a, syn, T)
+        y = s.pghi_gl_decode(s.magnitude(xb, ops, T), a, syn, T)
         return y.reshape(batch_shape + (T * s.hop,))
 
     return run

@@ -22,7 +22,16 @@ chunk; lookahead 4 too), all held against the generic chunk scan, and (phase
 4h) the dispatch outside the JAX package's gates: shapes no kernel covers
 (``STFT(1024, 300)``, ``RealtimeSTFT(1000, 250)``) on the eager route against
 the same calls on the CPU, and shapes the port's kernels take (1200/300) on
-the kernels.  Phase 6 runs the floor sweep of A
+the kernels.  The session encode (R, the magnitude encode) and the full-K
+melspec front end (E, F) have two routes, picked by n_fft alone: a
+shared-memory FFT (``csrc/fft_smem.cuh``) at a power of two from 64 to 4096,
+the window-folded product elsewhere.  Phases 3 and 4f hold the FFT route
+against its plain version within 1e-5 and against a float64 oracle at 1024,
+512, 2048 and (E, F) 4096, and the product route at 768/256 (E, F), 1200/300
+and 960/240 (R); the launch counters' route tally shows every main-path
+launch of the four on the FFT route, and phase 4h drives the product routes
+through the entry points (1200/300 sessions, a DGT(768, 256) chain).  Phase
+6 runs the floor sweep of A
 (``acids_transforms_tpu_torch.tools.sweep_kernel_floor``: kernel T, A cut
 after each of its stages) at the main path's shape, prints each stage's
 increment beside its own floor, and holds every stage against its plain
@@ -32,10 +41,13 @@ prints
 
 * a line with one JSON object ``{"kernels": [...]}`` (per kernel: launches on
   the main path, max error against the plain version, its time (``ms``, also
-  as ``kernel_ms``), the plain version's, the least time the card could take
+  as ``kernel_ms``: the card's time a call, in runs of calls back to back),
+  the plain version's and the library call's alike, the least time the card could take
   for the function (``bound_ms``: bytes moved once, or the operations an FFT
-  formulation needs), a library yardstick, and apart from the bound the fp32
-  multiply-add ceiling of the product formulation these kernels use),
+  formulation needs), and apart from the bound the fp32
+  ceiling of the kernel's own design (the product's multiply-adds, or the
+  FFT route's operations, at 67 TFLOP/s); ``front_end`` "fft" or "product"
+  on the rows of R, the magnitude encode, E and F, one row a route),
 * the card's name and power limit as ``nvidia-smi`` gives them,
 * and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -78,7 +90,9 @@ def abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def time_ms(fn, repeats: int, warmup: int = 2) -> float:
-    """Median over ``repeats`` of one call's device time (CUDA events)."""
+    """Median over ``repeats`` of one call timed alone: CUDA events around
+    it, the card idle before and after, so the host's time to enqueue the
+    call shows wherever it is longer than the card's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -91,6 +105,28 @@ def time_ms(fn, repeats: int, warmup: int = 2) -> float:
         stop.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def device_ms(fn, calls: int, warmup: int = 2, runs: int = 3) -> float:
+    """The card's time of one call of ``fn``: CUDA events around ``calls``
+    calls back to back, over the count, median of ``runs`` such runs after
+    ``warmup`` calls.  Back to back the host enqueues a call while the card
+    runs the one before, so the host's time shows only where it is the longer;
+    a call that synchronises shows all of it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop) / calls)
     return statistics.median(times)
 
 
@@ -435,6 +471,7 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     needs to time the kernels."""
     from acids_transforms_tpu_torch import streaming
     from acids_transforms_tpu_torch import transforms as T
+    from acids_transforms_tpu_torch.ops.cuda import frames_fft as ff
     from acids_transforms_tpu_torch.ops.cuda import stream_step as ss
 
     SB, SL, CH = args.streams, STREAM_LEN, STREAM_CHUNK
@@ -456,9 +493,12 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     def others():
         return sum(sum(w.launches.values()) for w in other_wrappers)
 
-    def route(label, fn, expect, main=True):
+    def route(label, fn, expect, main=True, front="fft"):
         """One run through the entry point, counters at 0 before and read
-        after; the main routes' launches go into the kernels line."""
+        after; the main routes' launches go into the kernels line.  Every
+        launch of the encode (R, the magnitude encode) must have taken the
+        route ``front``: "fft" at a power-of-two n_fft, "product" elsewhere;
+        the product route's launches are counted for its rows (4h)."""
         zero_all()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -466,10 +506,16 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
         got = {k: v for k, v in ss.launches.items() if v}
-        log(f"  {label}: {ms:.1f} ms, launches {got}")
+        fronts = {k: v for k, v in ss.routes.items() if v}
+        log(f"  {label}: {ms:.1f} ms, launches {got}" + (f", encode routes {fronts}" if fronts else ""))
         require(got == expect and others() == 0, f"{label}: expected the launches {expect}, got {got}")
+        for k in ("session_encode", "session_magnitude"):
+            require(ss.routes[f"{k}:{front}"] == ss.launches[k],
+                    f"{label}: {k} launched {ss.launches[k]} times, {ss.routes[k + ':' + front]} on the {front} route")
         for k, v in got.items():
             counts[k] += v if main else 0
+        for k, v in fronts.items():
+            counts[k] += v if main or front == "product" else 0
         return out
 
     def generic(label, fn):
@@ -501,7 +547,7 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         ref, out = x[..., : SL - delay - 2048], y[..., delay: SL - 2048]
         return 10 * math.log10((ref ** 2).sum().item() / max(((out - ref) ** 2).sum().item(), 1e-300))
 
-    for k in ss.launches:
+    for k in list(ss.launches) + list(ss.routes):
         counts[k] = 0
     sc_of = make_sc(sx)
     # encode
@@ -618,6 +664,51 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     check_kernels(f"main shape {SB} x {SL}", N_FFT, HOP, sx, CH)
     check_kernels("512/128, 3 x 20000 (ragged)", 512, 128, sx[:3, :20000].contiguous(), 2048)
     check_kernels("2048/512, 2 x 30000 (ragged)", 2048, 512, sx[:2, :30000].contiguous(), 4096)
+
+    # R and the magnitude encode on the FFT route (fft_smem.cuh:frames_rfft)
+    # against their plain version (frames_fft.frames_rfft_reference, the
+    # kernel's schedule: the same float32 operations in the same order, so
+    # within 1e-5 of the largest value and bit-identical where nothing rounds
+    # otherwise) and against the float64 oracle (torch.fft.rfft of the
+    # windowed frames in float64: float32 FFT sums, within 1e-5 of the largest
+    # magnitude); the product route at 1200/300 and 960/240 against its plain
+    # version at the product's 2e-5
+    def check_encode_routes(label, n_fft, hop, x, n_frames):
+        w = torch.hann_window(n_fft, device=dev)
+        ops = ss._encode_operands(w, n_fft)
+        fft = ff.fft_covers(n_fft)
+        ss.reset_launches()
+        spec = ss._launch_encode(x, ops, n_fft, hop, n_frames)
+        mag = ss._launch_encode(x, ops, n_fft, hop, n_frames, magnitude=True)
+        front = "fft" if fft else "product"
+        require(ss.routes[f"session_encode:{front}"] == 1 and ss.routes[f"session_magnitude:{front}"] == 1,
+                f"{label}: the encode took another route than {front}")
+        re, im = ss.session_encode_reference(x, w, n_fft, hop, n_frames)
+        plain = torch.stack([re, im], dim=-1)
+        e_r, e_m = rel_err(spec, plain), rel_err(mag, torch.sqrt(re * re + im * im))
+        bit = torch.equal(spec, plain)
+        fr = ss.session_rows(x, n_fft, hop, n_frames).double().unfold(-1, n_fft, hop) * w.double()
+        ora = torch.fft.rfft(fr, dim=-1)
+        del fr
+        o_r, o_m = rel_err(torch.view_as_complex(spec), ora), rel_err(mag, ora.abs())
+        del ora
+        tol = 1e-5 if fft else 2e-5
+        log(f"  R / magnitude encode {label} ({front} route, plan {ss._encode_plan(n_fft, hop)}): vs plain rel "
+            f"{e_r:.3e} / {e_m:.3e} (tol {tol:.0e}; bit-identical: {bit}), vs float64 oracle {o_r:.3e} / "
+            f"{o_m:.3e} (tol 1e-05)")
+        require(torch.isfinite(spec).all().item() and torch.isfinite(mag).all().item(), f"{label}: not finite")
+        require(e_r <= tol and e_m <= tol and o_r <= 1e-5 and o_m <= 1e-5, f"R {label}: out of budget")
+        key = "" if fft else "_product"
+        errs["R" + key] = max(errs.get("R" + key, 0.0), abs_err(spec, plain))
+        errs["Rmag" + key] = max(errs.get("Rmag" + key, 0.0), abs_err(mag, torch.sqrt(re * re + im * im)))
+
+    check_encode_routes(f"main shape {SB} x {SL}", N_FFT, HOP, sx, n_sf)
+    check_encode_routes("512/128, 3 x 20000 (odd: 157 frames)", 512, 128, sx[:3, :20000].contiguous(), 157)
+    check_encode_routes("2048/512, 2 x 30000 (odd: 59 frames)", 2048, 512, sx[:2, :30000].contiguous(), 59)
+    check_encode_routes("1200/300, 4 x 40000", 1200, 300, sx[:4, :40000].contiguous(), 136)
+    check_encode_routes("960/240, 4 x 40000 (odd: 167 frames)", 960, 240, sx[:4, :40000].contiguous(), 167)
+    ss.reset_launches()
+    torch.cuda.empty_cache()
 
     # the routes through the entry points beside the generic scan, B = 1, 8, 64
     log("  route times (CUDA events around the entry point, median of 3): kernel route / generic scan")
@@ -1050,8 +1141,9 @@ def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
     return main
 
 
-def structure_phase(dev, mono, stream, wrappers, errs):
-    """Phase 4h: the dispatch at shapes outside the JAX package's gates.
+def structure_phase(dev, mono, stream, wrappers, errs, counts):
+    """Phase 4h: the dispatch at shapes outside the JAX package's gates, and
+    the product routes of the encode and of E / F.
 
     * Shapes that neither the JAX package's gates nor the port's kernels
       cover run the eager route on the card, as the JAX package runs them on
@@ -1072,7 +1164,13 @@ def structure_phase(dev, mono, stream, wrappers, errs):
       sessions launch L (complex roundtrip, within 1e-4 of the CPU's generic
       scan), N (``pghi``) and O (``pghi_gl``), each against the card's
       generic scan under a generator in the same state by spectral
-      convergence within ``1.1 s + 1e-3``."""
+      convergence within ``1.1 s + 1e-3``.  Their encode (1200/300
+      ``scan_forward``) and magnitude encodes take the product route (n_fft
+      is no power of two); those launches are the product rows' counts.
+    * E and F on the product route through the entry points: the DGT
+      magnitude chain at 768/256 (``fuse_fit`` + ``fuse_forward`` on up to 16
+      clips), its fit and forward within 1e-5 / 1e-4 of the eager chain's, as
+      phase 4b holds the main shape."""
     from acids_transforms_tpu_torch import streaming
     from acids_transforms_tpu_torch import transforms as T
     from acids_transforms_tpu_torch.ops.cuda import pghi_kernel as pk
@@ -1152,6 +1250,14 @@ def structure_phase(dev, mono, stream, wrappers, errs):
     n_ch = xs.shape[-1] // chunk
     y_c = route("1200/300 complex roundtrip", lambda: streaming.scan_roundtrip(chain, xs, chunk),
                 {"session_roundtrip": 1}, main=False)
+    # R on the product route (n_fft 1200 is no power of two), counted for its row
+    f_c, _ = route("1200/300 encode: scan_forward (the product route)",
+                   lambda: streaming.scan_forward(chain, xs, chunk), {"session_encode": 1}, main=False,
+                   front="product")
+    f_p, _ = streaming.scan_forward(c_p, xs.cpu(), chunk)
+    e_f = crel(f_c.cpu(), f_p)
+    log(f"    the session vs the CPU's generic scan: rel {e_f:.3e} (tol 1e-04)")
+    require(e_f <= 1e-4, "1200/300 encode: the session differs from the generic scan")
     y_p = streaming.scan_roundtrip(c_p, xs.cpu(), chunk)
     e_y = rel_err(y_c.cpu(), y_p)
     log(f"    the session vs the CPU's generic scan: rel {e_y:.3e} (tol 1e-04)")
@@ -1178,7 +1284,7 @@ def structure_phase(dev, mono, stream, wrappers, errs):
                 f"1200/300 {mode}: must plan the session")
         y_k = route(f"1200/300 {mode} roundtrip",
                     lambda: streaming.scan_roundtrip(chain, xs, chunk, mode, generator=sgen(153)), expect,
-                    main=False)
+                    main=False, front="product")
         y_g = generic(f"1200/300 {mode} generic", lambda: streaming.scan_roundtrip(
             chain, xs, chunk, mode, generator=sgen(153), backend="generic"))
         s_k, s_g = sc(y_k), sc(y_g)
@@ -1186,6 +1292,32 @@ def structure_phase(dev, mono, stream, wrappers, errs):
             f"(must be <= {1.1 * s_g + 1e-3:.5f})")
         require(y_k.shape == y_g.shape and torch.isfinite(y_k).all().item() and s_k <= 1.1 * s_g + 1e-3,
                 f"1200/300 {mode}: the session converges worse than the generic scan")
+
+    # E and F on the product route: n_fft 768 is no power of two
+    import acids_transforms_tpu_torch as att
+    from acids_transforms_tpu_torch.ops.cuda import spectral as sp
+
+    audio = mono[:16, None].expand(-1, 2, -1).contiguous()      # up to 16 stereo clips
+    d_chain = T.Mono() + T.DGT(n_fft=768, hop_length=256) + T.Magnitude(mode="unipolar", contrast="log1p", mel=False)
+    zero()
+    d_fit = att.fuse_fit(d_chain)(audio)
+    y_k = att.fuse_forward(d_fit)(audio)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in sp.routes.items() if v}
+    log(f"  DGT(768, 256) magnitude chain, fit + forward on {tuple(audio.shape)}: launches "
+        f"{ {k: v for k, v in sp.launches.items() if v} }, routes {got}")
+    require(got == {"fused_melspec_fullk:product": 1, "fused_melspec_stats_fullk:product": 1} and launched() == 2,
+            "DGT(768, 256): E and F must launch once each on the product route")
+    for k, v in got.items():
+        counts[k] += v
+    e_fit = d_chain.fit(audio)
+    e_off = abs(d_fit[2].norm.offset.item() - e_fit[2].norm.offset.item()) / abs(e_fit[2].norm.scale.item())
+    e_scl = abs(d_fit[2].norm.scale.item() - e_fit[2].norm.scale.item()) / abs(e_fit[2].norm.scale.item())
+    e_y = rel_err(y_k, d_fit.forward(audio))
+    log(f"    fit offset / scale vs chain.fit: {e_off:.3e} / {e_scl:.3e} of the scale (tol 1e-05); forward vs the "
+        f"eager chain rel {e_y:.3e} (tol 1e-04)")
+    require(torch.isfinite(y_k).all().item() and e_off <= 1e-5 and e_scl <= 1e-5 and e_y <= 1e-4,
+            "DGT(768, 256): the product route differs from the eager chain")
 
 
 def sweep_phase(args, dev, mono, bank, off, scl, taps, kernels, bound_of, wrappers):
@@ -1283,8 +1415,9 @@ def sweep_phase(args, dev, mono, bank, off, scl, taps, kernels, bound_of, wrappe
     require(e_86 <= 1e-6, "T s8_mel_dense differs from s6_mel_banded")
     del out, y_a
 
-    # A's phase-5 time is one call of fused_melspec: _prepare_rows, then the
-    # kernel; s7_full times the kernel alone on prepared rows
+    # A's phase-5 time is the card's time of a fused_melspec call in a run of
+    # calls back to back: _prepare_rows, then the kernel; s7_full times the
+    # kernel alone on prepared rows
     a_row = next(r for r in kernels if r["name"] == "fused_melspec")
     s7_ms = res["s7_full"]["ms"]
     d_full = (s7_ms + prep_ms) / a_row["ms"] - 1.0
@@ -1319,7 +1452,7 @@ def main() -> int:
     import acids_transforms_tpu_torch as att
     from acids_transforms_tpu_torch import transforms as T
     from acids_transforms_tpu_torch.ops import pghi as pghi_ops
-    from acids_transforms_tpu_torch.ops.cuda import _build, glstep, pghi_kernel, spectral
+    from acids_transforms_tpu_torch.ops.cuda import _build, frames_fft as ff, glstep, pghi_kernel, spectral
     from acids_transforms_tpu_torch.ops.fft import istft, taps_for_window
     from acids_transforms_tpu_torch.ops.windows import dgt_gamma, gaussian_dgt_window, get_window
 
@@ -1377,6 +1510,30 @@ def main() -> int:
                     == ss._roundtrip_smem_bytes(rows, ov_s, hop_s, kn, kp)
                     and lib.att_session_decode_smem_bytes(rows, ov_s, kp) == ss._decode_smem_bytes(rows, ov_s, kp),
                     "session kernels' shared-memory size: wrapper and source disagree")
+    # the FFT route of R / the magnitude encode and of E / F: both layouts at
+    # every size the route takes, with the plans' team counts and fewer
+    n_fft_checked = 0
+    for n_fft_s in (64, 128, 256, 512, 1024, 2048, 4096):
+        for ov_s in (2, 4, 8):
+            hop_s, f_s = n_fft_s // ov_s, n_fft_s // 2 + 1
+            rows, teams = ss._encode_plan(n_fft_s, hop_s)
+            require(teams > 0, f"{n_fft_s}/{hop_s}: the encode must take the FFT route")
+            for tm in sorted({1, teams // 2 or 1, teams}):
+                require(lib.att_session_encode_fft_smem_bytes(2 * tm, hop_s, n_fft_s, tm)
+                        == ss._encode_fft_smem_bytes(2 * tm, hop_s, n_fft_s, tm),
+                        "encode FFT route's shared-memory size: wrapper and source disagree")
+            if hop_s % 32 == 0:
+                tile_t, teams = spectral._kernel_plan(n_fft_s, hop_s, None)
+                require(teams > 0, f"{n_fft_s}/{hop_s}: E and F must take the FFT route")
+                for t_s in spectral.TILES:
+                    for tm in sorted({1, teams}):
+                        require(lib.att_melspec_fft_smem_bytes(t_s, hop_s, ov_s, f_s, tm)
+                                == spectral._fft_smem_bytes(t_s, hop_s, ov_s, f_s, tm),
+                                "melspec FFT route's shared-memory size: wrapper and source disagree")
+            n_fft_checked += 1
+    log(f"    shared-memory sizes of the FFT route: wrapper and source agree at {n_fft_checked} shapes "
+        f"(plans at {N_FFT}/{HOP}: encode {ss._encode_plan(N_FFT, HOP)}, E/F "
+        f"{spectral._kernel_plan(N_FFT, HOP, None)} as (rows or tile, FFTs side by side))")
 
     # ------------------------------------------------ 3. kernels vs plain
     log("[3] each kernel against its plain PyTorch version on the card")
@@ -1492,6 +1649,55 @@ def main() -> int:
         require(spectral.fused_melspec_available(n_fft, hop, None), f"full-K must cover {n_fft}/{hop}")
         check_forward(f"{n_fft}/{hop} gaussian", rag, n_fft, hop, "gaussian", None, -0.2, 0.7)
         check_stats(f"{n_fft}/{hop} gaussian", rag, n_fft, hop, "gaussian")
+
+    # E and F on the FFT route (every call above took it: n_fft a power of
+    # two), |X| itself (no contrast, no affine) against the plain version
+    # within 1e-5 of the largest value and against the float64 oracle
+    # (torch.stft in float64 of the same clips) within 1e-5 of the largest
+    # magnitude; F's statistics of log1p |X| against the oracle's (sums within
+    # 1e-5 relative, extrema within 1e-5 of the largest).  The product route
+    # at 768/256 (n_fft no power of two) against its plain version, as above.
+    def check_fullk_routes(name, x, n_fft, hop):
+        w = gaussian_dgt_window(n_fft, device=dev)
+        fft = ff.fft_covers(n_fft)
+        front = "fft" if fft else "product"
+        kw = dict(mel_bank=None, offset=0.0, scale=1.0, contrast="none", taps=None, window=w)
+        spectral.reset_launches()
+        m_k = spectral.fused_melspec(x, n_fft, hop, **kw)
+        s_k = spectral.fused_melspec_stats(x, n_fft, hop, "log1p", taps=None, window=w)
+        require(spectral.routes[f"fused_melspec_fullk:{front}"] == 1
+                and spectral.routes[f"fused_melspec_stats_fullk:{front}"] == 1,
+                f"E/F {name}: took another route than {front}")
+        m_p = spectral.fused_melspec_reference(x, n_fft, hop, **kw)
+        s_p = spectral.fused_melspec_stats_reference(x, n_fft, hop, "log1p", taps=None, window=w)
+        ora = torch.stft(x.double(), n_fft, hop, window=w.double(), center=True, pad_mode="reflect",
+                         return_complex=True).abs().transpose(-2, -1)
+        v = torch.log1p(ora)
+        s_o = {"sum": v.sum().item(), "sumsq": (v * v).sum().item(), "min": v.min().item(), "max": v.max().item()}
+        del v
+        e_p, e_o = rel_err(m_k, m_p), rel_err(m_k, ora)
+        del ora
+        ext = max(1.0, abs(s_o["max"]))
+        e_s = max(abs(s_k[k].item() - s_o[k]) / abs(s_o[k]) for k in ("sum", "sumsq"))
+        e_x = max(abs(s_k[k].item() - s_o[k]) / ext for k in ("min", "max"))
+        e_sp = max(abs(s_k[k].item() - s_p[k].item()) / abs(s_p[k].item()) for k in ("sum", "sumsq"))
+        tol = 1e-5 if fft else 2e-5
+        log(f"  E / F {name} ({front} route, plan {spectral._kernel_plan(n_fft, hop, None)}): |X| vs plain rel "
+            f"{e_p:.3e} (tol {tol:.0e}), vs float64 oracle {e_o:.3e} (tol 1e-05); statistics vs oracle: sums "
+            f"{e_s:.3e}, extrema {e_x:.3e} (tol 1e-05), sums vs plain {e_sp:.3e} (tol 1e-05)")
+        require(torch.isfinite(m_k).all().item() and m_k.shape == m_p.shape, f"E {name}: bad output")
+        require(e_p <= tol and e_o <= 1e-5 and e_s <= 1e-5 and e_x <= 1e-5 and e_sp <= 1e-5,
+                f"E / F {name}: out of budget")
+        key = "" if fft else "_product"
+        errs["E" + key] = max(errs.get("E" + key, 0.0), abs_err(m_k, m_p))
+        errs["F" + key] = max(errs.get("F" + key, 0.0),
+                              *(abs(s_k[k].item() - s_p[k].item()) for k in ("min", "max")))
+
+    check_fullk_routes(f"main shape {B} x {L}", mono, N_FFT, HOP)
+    for n_fft, hop in ((512, 128), (2048, 512), (4096, 1024), (768, 256)):
+        check_fullk_routes(f"{n_fft}/{hop}, 5 x 20000", rag, n_fft, hop)
+    spectral.reset_launches()
+    torch.cuda.empty_cache()  # the float64 oracles' blocks: no later phase finds its cache grown
     # K: the PGHI recurrence (causal and bidirectional), the synthesis and the
     # whole inversion.  Main shape on 16 clips (the plain recurrence is a
     # Python loop over 690 frames), two hops that need no special layout on
@@ -1821,6 +2027,11 @@ def main() -> int:
         f"launches {dgt_counts}")
     for k in ("fused_melspec_fullk", "fused_melspec_stats_fullk", "pghi_phases", "pghi_synthesize"):
         require(dgt_counts[k] > 0, f"kernel {k} was not launched on the DGT path")
+    log(f"  E and F by route: {spectral.routes}")
+    for k in ("fused_melspec_fullk", "fused_melspec_stats_fullk"):
+        require(spectral.routes[k + ":fft"] == dgt_counts[k] and spectral.routes[k + ":product"] == 0,
+                f"{k}: the DGT path's launches must all take the FFT route")
+    counts.update(spectral.routes)
     counts.update({k: dgt_counts[k] for k in ("fused_melspec_fullk", "fused_melspec_stats_fullk",
                                               "pghi_phases", "pghi_synthesize")})
     require(tuple(y_dgt.shape) == (B, n_frames, N_FFT // 2 + 1), f"DGT magnitude shape {tuple(y_dgt.shape)}")
@@ -2023,11 +2234,11 @@ def main() -> int:
     # ------------------------------------------ 4g. streaming pghi_gl (O)
     gl_stream = stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream)
     # ----------------------------- 4h. shapes outside the kernels' structure
-    structure_phase(dev, mono, stream, (spectral, glstep, pghi_kernel, ss), errs)
+    structure_phase(dev, mono, stream, (spectral, glstep, pghi_kernel, ss), errs, counts)
 
     # ------------------------------------------------------------ 5. times
-    log("[5] kernel times at the main-path shape (CUDA events, median of "
-        f"{args.repeats} after warm-up)")
+    log("[5] kernel times at the main-path shape (CUDA events around runs of "
+        f"{args.repeats} calls back to back, per call, median of 3 runs after warm-up)")
     F = N_FFT // 2 + 1
     Tn = n_frames
     ov = N_FFT // HOP
@@ -2072,6 +2283,15 @@ def main() -> int:
 
     def ceiling_of(flops):
         return 1e3 * flops / PEAK_FP32_FLOPS
+
+    def fft_design_flops(n, frames):
+        """Operations fft_smem.cuh:frames_rfft does for `frames` frames of n
+        points, two a pair: the window (2 n products), per radix-4 butterfly
+        16 additions and 3 complex products (6 each), per radix-2 butterfly 4
+        additions, and the split (8 per bin)."""
+        lg = int(math.log2(n))
+        pair = 2.0 * n + (lg // 2) * (n / 4) * 34.0 + (lg % 2) * (n / 2) * 4.0 + 8.0 * (n // 2 + 1)
+        return pair * frames / 2.0
 
     # window (1 per sample), |X| (4 per bin), mel (2 per nonzero), log1p and affine (3 per bin)
     fwd_flops = fft_flops + B * Tn * (N_FFT + 7.0 * F + 2.0 * nnz)
@@ -2118,12 +2338,28 @@ def main() -> int:
              ceiling=ceiling_of(4 * gl_flops)),
     ]
     # ---- the DGT path's kernels.  E and F: the same function as A and B
-    # under another window (no mel), so the same bound; their design does the
-    # full n_fft-long product per frame, `overlap` times the chunk products.
+    # under another window (no mel), so the same bound.  On the main path they
+    # take the FFT route (fft_smem.cuh:frames_rfft): its own fp32 ceiling is
+    # the operations this design does (fft_design_flops), not a bound.  Their
+    # product route (n_fft no power of two) does the full n_fft-long product
+    # per frame, `overlap` times the chunk products: its rows stand at 768/256
+    # on the same clips, counted in phase 4h.
     kw_e = dict(mel_bank=None, offset=dgt_fit[2].norm.offset, scale=dgt_fit[2].norm.scale,
                 contrast="log1p", taps=None, window=dgt_f.window)
-    fullk_flops = 4.0 * B * Tn * N_FFT * F                   # cos and sin products of every frame
+    fullk_flops = 4.0 * B * Tn * N_FFT * F                   # the full-K product (G and H full-K below)
     e_need = fft_flops + B * Tn * (N_FFT + 7.0 * F)
+    n_fft_p, hop_p = 768, 256                                # the product route's shape
+    Tp, Fp = 1 + L // hop_p, n_fft_p // 2 + 1
+    w_p = gaussian_dgt_window(n_fft_p, device=dev)
+    kw_p = dict(kw_e, window=w_p)
+    fft_p = 2.5 * n_fft_p * math.log2(n_fft_p) * B * Tp
+    el_p = float(B * Tp * Fp)
+    e_need_p = fft_p + B * Tp * (n_fft_p + 7.0 * Fp)
+    fullk_p = 4.0 * B * Tp * n_fft_p * Fp                    # cos and sin products of every frame
+
+    def lib_dgt_spec_p(x):
+        return torch.stft(x, n_fft_p, hop_p, window=w_p, center=True, pad_mode="reflect",
+                          return_complex=True).abs().transpose(-2, -1)
     gamma = dgt_f.gamma
     k_angles = 2 * math.pi * torch.rand(dgt_target.shape, device=dev,
                                         generator=torch.Generator(device=dev).manual_seed(args.seed + 21))
@@ -2160,24 +2396,48 @@ def main() -> int:
 
     pghi_src = "acids_transforms_tpu_torch/csrc/pghi.cu"
     pghi_tpu = "acids_transforms_tpu/ops/pallas/pghi_kernel.py:124"
+    def lib_dgt_stats_p():
+        v = torch.log1p(lib_dgt_spec_p(mono))
+        return v.sum(), (v * v).sum(), v.min(), v.max()
+
+    spectral_src = "acids_transforms_tpu_torch/csrc/spectral.cu (+ csrc/fft_smem.cuh)"
     specs += [
-        dict(key="E", name="fused_melspec_fullk", source="acids_transforms_tpu_torch/csrc/spectral.cu",
+        dict(key="E", name="fused_melspec_fullk", source=spectral_src, front_end="fft",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:715",
-             launches=counts["fused_melspec_fullk"],
+             launches=counts["fused_melspec_fullk:fft"],
              run=lambda: spectral.fused_melspec(mono, N_FFT, HOP, **kw_e),
              plain=lambda: spectral.fused_melspec_reference(mono, N_FFT, HOP, **kw_e),
              library=lambda: (torch.log1p(lib_dgt_spec(mono)) - kw_e["offset"]) / kw_e["scale"],
              bound=bound_of(4.0 * B * L + 4.0 * n_el, e_need),
-             ceiling=ceiling_of(fullk_flops + 7.0 * n_el)),
-        dict(key="F", name="fused_melspec_stats_fullk", source="acids_transforms_tpu_torch/csrc/spectral.cu",
+             ceiling=ceiling_of(fft_design_flops(N_FFT, B * Tn) + 7.0 * n_el)),
+        dict(key="F", name="fused_melspec_stats_fullk", source=spectral_src, front_end="fft",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:888",
-             launches=counts["fused_melspec_stats_fullk"],
+             launches=counts["fused_melspec_stats_fullk:fft"],
              run=lambda: spectral.fused_melspec_stats(mono, N_FFT, HOP, "log1p", taps=None, window=dgt_f.window),
              plain=lambda: spectral.fused_melspec_stats_reference(
                  mono, N_FFT, HOP, "log1p", taps=None, window=dgt_f.window),
              library=lib_dgt_stats,
              bound=bound_of(4.0 * B * L, e_need + 2.0 * n_el),
-             ceiling=ceiling_of(fullk_flops + 9.0 * n_el)),
+             ceiling=ceiling_of(fft_design_flops(N_FFT, B * Tn) + 9.0 * n_el)),
+        dict(key="E_product", name="fused_melspec_fullk_product", front_end="product",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:715",
+             launches=counts["fused_melspec_fullk:product"],
+             run=lambda: spectral.fused_melspec(mono, n_fft_p, hop_p, **kw_p),
+             plain=lambda: spectral.fused_melspec_reference(mono, n_fft_p, hop_p, **kw_p),
+             library=lambda: (torch.log1p(lib_dgt_spec_p(mono)) - kw_e["offset"]) / kw_e["scale"],
+             bound=bound_of(4.0 * B * L + 4.0 * el_p, e_need_p),
+             ceiling=ceiling_of(fullk_p + 7.0 * el_p)),
+        dict(key="F_product", name="fused_melspec_stats_fullk_product", front_end="product",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:888",
+             launches=counts["fused_melspec_stats_fullk:product"],
+             run=lambda: spectral.fused_melspec_stats(mono, n_fft_p, hop_p, "log1p", taps=None, window=w_p),
+             plain=lambda: spectral.fused_melspec_stats_reference(mono, n_fft_p, hop_p, "log1p", taps=None,
+                                                                  window=w_p),
+             library=lib_dgt_stats_p,
+             bound=bound_of(4.0 * B * L, e_need_p + 2.0 * el_p),
+             ceiling=ceiling_of(fullk_p + 9.0 * el_p)),
         # the recurrence has no single PyTorch call to stand beside it
         dict(key="K_phases", name="pghi_phases", source=pghi_src, replaces=pghi_tpu,
              launches=counts["pghi_phases"],
@@ -2332,15 +2592,18 @@ def main() -> int:
     # the angles read and, per bin, |X|, a sincos and two products (26
     # operations); P reads magnitudes and angles, writes the audio, one
     # inverse FFT, the window, the overlap-add and 22 operations per bin.
-    # Their design runs the full-length products: the analysis of every
-    # frame a block holds (n_fft rounded to 32 x 128-bin column tiles, cos and
-    # sin) and the synthesis of 8 ceil(R / 8) chunks x overlap x Kp x hop per
-    # block.  The yardsticks (timed, used nowhere): torch.stft(center=False)
-    # on the padded rows; torch.fft.irfft x the synthesis window + fold.
+    # The design of L, M, P and S runs the full-length products: the analysis
+    # of every frame a block holds (n_fft rounded to 32 x 128-bin column
+    # tiles, cos and sin) and the synthesis of 8 ceil(R / 8) chunks x overlap
+    # x Kp x hop per block; R's FFT route does fft_design_flops, its product
+    # route (1200/300 here, 592 frames a session) the analysis product.  The
+    # yardsticks (timed, used nowhere): torch.stft(center=False) on the padded
+    # rows; torch.fft.irfft x the synthesis window + fold.
     ss = stream["ss"]
     sx, s_rt, s_mags, s_ang, n_sf = (stream[k] for k in ("sx", "rt", "mags", "angles", "n_frames"))
     SB = sx.shape[0]
     s_wc, s_ws = ss._ana_basis(s_rt.window, N_FFT, ss._k_analysis(N_FFT))
+    s_ops = ss._encode_operands(s_rt.window, N_FFT)
     s_syn = ss._syn_basis(s_rt.inv_window, float(ov), N_FFT, HOP)
     s_fr = float(SB * n_sf)
     s_fft = 2.5 * N_FFT * math.log2(N_FFT) * s_fr
@@ -2363,6 +2626,18 @@ def main() -> int:
         rows = ss.session_rows(sx, N_FFT, HOP, n_sf)
         return torch.stft(rows, N_FFT, HOP, window=s_rt.window, center=False, return_complex=True)
 
+    n_fft_q, hop_q = 1200, 300                               # the product route's shape
+    F_q, T_q = n_fft_q // 2 + 1, -(-STREAM_LEN // 2400) * 8
+    w_q = torch.hann_window(n_fft_q, device=dev)
+    q_ops = ss._encode_operands(w_q, n_fft_q)
+    q_fr = float(SB * T_q)
+    q_fft = 2.5 * n_fft_q * math.log2(n_fft_q) * q_fr
+    q_ana = 4.0 * q_fr * ss._k_analysis(n_fft_q) * 128 * -(-F_q // 128)
+
+    def lib_encode_q():
+        rows = ss.session_rows(sx, n_fft_q, hop_q, T_q)
+        return torch.stft(rows, n_fft_q, hop_q, window=w_q, center=False, return_complex=True)
+
     def lib_synth(S):
         fr = torch.fft.irfft(S, n=N_FFT) * s_syn_window
         y = torch.nn.functional.fold(fr.transpose(1, 2), (1, (n_sf - 1) * HOP + N_FFT), (1, N_FFT),
@@ -2372,12 +2647,18 @@ def main() -> int:
     stream_src = "acids_transforms_tpu_torch/csrc/stream_step.cu"
     stream_tpu = "acids_transforms_tpu/ops/pallas/stream_step.py"
     specs += [
-        dict(key="R", name="session_encode", source=stream_src, replaces=stream_tpu + ":1670",
-             launches=counts["session_encode"],
-             run=lambda: ss._launch_encode(sx, s_wc, s_ws, N_FFT, HOP, n_sf),
+        dict(key="R", name="session_encode", source=stream_src + " (+ csrc/fft_smem.cuh)", front_end="fft",
+             replaces=stream_tpu + ":1670", launches=counts["session_encode:fft"],
+             run=lambda: ss._launch_encode(sx, s_ops, N_FFT, HOP, n_sf),
              plain=lambda: ss.session_encode_reference(sx, s_rt.window, N_FFT, HOP, n_sf),
              library=lib_encode, bound=bound_of(s_in + s_spec, s_fft + N_FFT * s_fr),
-             ceiling=ceiling_of(ana_flops(s_fr))),
+             ceiling=ceiling_of(fft_design_flops(N_FFT, s_fr))),
+        dict(key="R_product", name="session_encode_product", source=stream_src, front_end="product",
+             replaces=stream_tpu + ":1670", launches=counts["session_encode:product"],
+             run=lambda: ss._launch_encode(sx, q_ops, n_fft_q, hop_q, T_q),
+             plain=lambda: ss.session_encode_reference(sx, w_q, n_fft_q, hop_q, T_q),
+             library=lib_encode_q, bound=bound_of(s_in + 8.0 * q_fr * F_q, q_fft + n_fft_q * q_fr),
+             ceiling=ceiling_of(q_ana)),
         dict(key="L", name="session_roundtrip", source=stream_src, replaces=stream_tpu + ":211",
              launches=counts["session_roundtrip"],
              run=lambda: ss._launch_roundtrip(sx, None, s_wc, s_ws, s_syn, N_FFT, HOP, n_sf),
@@ -2416,12 +2697,19 @@ def main() -> int:
     rt_silent = (rt_mag <= torch.clamp_min(h_rt.tolerance * chunk_max, 1.19e-7)[..., None]).float().mean().item()
     rt_spec_ri = torch.view_as_real(rt_spec).contiguous()
     specs += [
-        dict(key="Rmag", name="session_magnitude_encode", source=stream_src, replaces=stream_tpu + ":602",
-             launches=counts["session_magnitude"],
-             run=lambda: ss._launch_encode(sx, s_wc, s_ws, N_FFT, HOP, n_sf, magnitude=True),
+        dict(key="Rmag", name="session_magnitude_encode", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="fft", replaces=stream_tpu + ":602", launches=counts["session_magnitude:fft"],
+             run=lambda: ss._launch_encode(sx, s_ops, N_FFT, HOP, n_sf, magnitude=True),
              plain=lambda: ss.session_magnitude_reference(sx, s_rt.window, N_FFT, HOP, n_sf),
              library=lambda: lib_encode().abs(), bound=bound_of(s_in + s_spec / 2, s_fft + (N_FFT + 4.0 * F) * s_fr),
-             ceiling=ceiling_of(ana_flops(s_fr) + 4.0 * s_fr * F)),
+             ceiling=ceiling_of(fft_design_flops(N_FFT, s_fr) + 4.0 * s_fr * F)),
+        dict(key="Rmag_product", name="session_magnitude_encode_product", source=stream_src,
+             front_end="product", replaces=stream_tpu + ":602", launches=counts["session_magnitude:product"],
+             run=lambda: ss._launch_encode(sx, q_ops, n_fft_q, hop_q, T_q, magnitude=True),
+             plain=lambda: ss.session_magnitude_reference(sx, w_q, n_fft_q, hop_q, T_q),
+             library=lambda: lib_encode_q().abs(),
+             bound=bound_of(s_in + 4.0 * q_fr * F_q, q_fft + (n_fft_q + 4.0 * F_q) * q_fr),
+             ceiling=ceiling_of(q_ana + 4.0 * q_fr * F_q)),
         dict(key="RT", name="rt_pghi_phases", source="acids_transforms_tpu_torch/csrc/pghi.cu",
              replaces=stream_tpu + ":668", launches=counts["rt_pghi_phases"],
              run=lambda: ss._launch_rt_pghi(rt_mag, rt_ang, *rt_args),
@@ -2513,25 +2801,40 @@ def main() -> int:
         f"chunk: {100 * s_silent:.1f}%")
     kernels = []
     for s in specs:
-        # turns: plain, kernel, kernel, plain -- the kernel's time is the
-        # median over both of its turns' repeats
+        # turns: plain, kernel, plain; each time is the card's per call in
+        # runs of calls back to back (device_ms), so that the host's enqueue
+        # (0.2-1.2 ms a call of A, with the row preparation, varying with the
+        # host's load) hides behind the card's work as it does on the paths
         # (a plain version that is a Python loop over frames takes seconds:
-        # it runs once per turn, without warm-up)
-        p_rep, p_warm = (1, 0) if s.get("plain_once") else (max(1, args.repeats // 2), 2)
-        p1 = time_ms(s["plain"], p_rep, p_warm)
-        k_ms = time_ms(s["run"], args.repeats)
-        p2 = time_ms(s["plain"], p_rep, p_warm)
-        l_ms = None if s["library"] is None else time_ms(s["library"], max(1, args.repeats // 2))
+        # it runs once per turn, without warm-up); the kernel and the library
+        # call are also timed one call alone (time_ms), host time included,
+        # as phase 5 timed every row before it timed back to back, so that the
+        # host's time stays visible
+        p_rep, p_warm, p_runs = (1, 0, 1) if s.get("plain_once") else (max(1, args.repeats // 2), 2, 3)
+        l_rep = max(1, args.repeats // 2)
+        p1 = device_ms(s["plain"], p_rep, p_warm, p_runs)
+        k_ms = device_ms(s["run"], args.repeats)
+        k_single = time_ms(s["run"], args.repeats)
+        p2 = device_ms(s["plain"], p_rep, p_warm, p_runs)
+        l_ms = None if s["library"] is None else device_ms(s["library"], l_rep)
+        l_single = None if s["library"] is None else time_ms(s["library"], l_rep)
         b_ms, b_by = s["bound"]
         row = dict(name=s["name"], route="cuda", source=s["source"], replaces=s["replaces"],
                    launches=s["launches"], max_abs_err=errs[s["key"]], ms=k_ms, kernel_ms=k_ms,
                    plain_ms=0.5 * (p1 + p2), bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
-                   design_fma_ceiling_ms=s["ceiling"])
+                   design_fma_ceiling_ms=s["ceiling"], single_call_ms=k_single,
+                   library_single_call_ms=l_single)
+        if "front_end" in s:
+            row["front_end"] = s["front_end"]
         kernels.append(row)
-        log(f"  {s['key']} {s['name']}: {k_ms:.3f} ms, plain {row['plain_ms']:.3f} ms, "
-            f"library {'none' if l_ms is None else format(l_ms, '.3f') + ' ms'}, bound {b_ms:.3f} ms by {b_by} "
-            f"({100 * b_ms / k_ms:.1f}% of it reached); fp32 FMA ceiling of this design "
-            f"{s['ceiling']:.3f} ms ({100 * s['ceiling'] / k_ms:.1f}%)")
+        front = f" [{s['front_end']} route]" if "front_end" in s else ""
+        ratio = "" if l_ms is None else f", {k_ms / l_ms:.2f}x the library"
+        single = f"; one call alone {k_single:.3f} ms" + (
+            "" if l_single is None else f", the library's {l_single:.3f} ms")
+        log(f"  {s['key']} {s['name']}{front}: {k_ms:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+            f"library {'none' if l_ms is None else format(l_ms, '.3f') + ' ms'}{ratio}, bound {b_ms:.3f} ms by "
+            f"{b_by} ({100 * b_ms / k_ms:.1f}% of it reached); fp32 ceiling of this design "
+            f"{s['ceiling']:.3f} ms ({100 * s['ceiling'] / k_ms:.1f}%){single}")
 
     # O's host share: a projection's two launches enqueued back to back
     # behind a sleep kernel, so that the card never waits for the host while
