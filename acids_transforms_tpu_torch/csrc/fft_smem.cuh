@@ -1,31 +1,45 @@
-// Shared-memory FFT of frames for Hopper (sm_90a): frames_rfft.
+// Shared-memory FFT of frames for Hopper (sm_90a): frames_rfft, its inverse
+// frames_irfft, and frames_roundtrip (one, then the other, in one team).
 //
-// Replaces the window-folded full-length product (stream_step.cu:
-// fullk_analysis, dft_common.cuh:analysis_tile with klen = n_fft) in the two
-// kernels whose TPU originals compute a windowed real DFT of every frame:
+// Replaces the window-folded full-length products for every n_fft that
+// fft_covers() takes (a power of two from 64 to 4096;
+// ops/cuda/frames_fft.py:fft_covers is the wrapper's copy of the rule); the
+// other shapes keep the products.  frames_rfft replaces the analysis product
+// (stream_step.cu:fullk_analysis, dft_common.cuh:analysis_tile with klen =
+// n_fft), frames_irfft the synthesis product (synth_ola.cuh:synth_ola_tile),
+// in the kernels whose TPU originals compute a windowed real DFT of every
+// frame, or its inverse:
 //   stream_step.cu:session_encode_kernel<., true>  <- ops/pallas/stream_step.py:
 //       _session_forward_kernel (R) and _analyze_mag (the magnitude encode of N)
 //   spectral.cu:block_magnitudes<., kFrontFft>     <- ops/pallas/spectral.py:
 //       _forward_kernel (E) and _stats_kernel (F), full-K
-// for every n_fft that fft_covers() takes (a power of two from 64 to 4096;
-// ops/cuda/frames_fft.py:fft_covers is the wrapper's copy of the rule).  The
-// other shapes keep the product.
+//   glstep_fullk.cu:gl_fullk_fft_kernel            <- ops/pallas/glstep.py:
+//       _gl_kernel_fullk_momentum (J): frames_irfft, then frames_rfft
+//   stream_step.cu:session_roundtrip_fft_kernel    <- ops/pallas/stream_step.py:
+//       _session_kernel (L) and _session_random_kernel (M): frames_roundtrip
 //
-// What it computes.  X_r[k] = sum_n w[n] xs[r hop + n] e^{-2 pi i n k / n}
-// for k <= n / 2 of every frame r < n_frames of a sample buffer already in
-// shared memory, handed to emit(r, k, re, im): the contract of
-// fullk_analysis's emit.  Float32 throughout.
+// What they compute.  frames_rfft: X_r[k] = sum_n w[n] xs[r hop + n] e^{-2 pi
+// i n k / n} for k <= n / 2 of every frame r < n_frames of a sample buffer
+// already in shared memory, handed to emit(r, k, re, im): the contract of
+// fullk_analysis's emit.  frames_irfft: y_r[i] = wsyn[i] sum_k c_k Re(X_r[k]
+// e^{2 pi i k i / n}) (c_0 = c_{n/2} = 1, else 2; wsyn the synthesis window
+// over n) of spectra the caller hands in bin by bin, handed to emit(r, i, v)
+// so that the caller adds them into its own sample buffer.  Float32
+// throughout.
 //
-// What bounds it on this card: bytes.  An FFT needs about 2.5 n log2 n
+// What bounds them on this card: bytes.  An FFT needs about 2.5 n log2 n
 // operations a frame (25.6 K at n = 1024), far below the fp32 ridge of 67
 // TFLOP/s over 3.35 TB/s = 20 flop a byte; R's function at 1024/256 and 64
-// sessions x 688 frames moves 0.067 ms of bytes, E's 0.081 ms.  The product it
-// replaces did n x F x 2 multiply-adds a frame (1.05 M), 41 times an FFT's
-// operations, so its own fp32 ceiling (1.7 ms for R, 2.8 ms for E) sat above
-// the cuFFT yardstick.  This design reads the samples once (the caller's
-// buffer), reads no basis (the window and the twiddle table, n + 1.5 n floats,
-// are staged once a block), and does an FFT's operations.  What is left is
-// shared-memory traffic: each pass reads and writes the pair's 2 n floats.
+// sessions x 688 frames moves 0.067 ms of bytes, E's 0.081 ms, J's (nine
+// (B, T, F) arrays) 0.487 ms.  The products they replace did n x F x 2
+// multiply-adds a frame and direction (1.05 M), 41 times an FFT's
+// operations, so their own fp32 ceiling (1.7 ms for R, 2.8 ms for E, 6.8 ms
+// for J, 3.3 ms for L) sat above the cuFFT yardstick.  This design reads the
+// samples or the spectra once, reads no basis (the window and the twiddle
+// table, n + 1.5 n floats, are staged once a block), and does an FFT's
+// operations.  What is left is shared-memory traffic (each pass reads and
+// writes the pair's 2 n floats), the barriers between passes, and, for the
+// inverse, the overlap-add's class order: a block barrier between classes.
 //
 // Design.
 // * Two real frames per complex FFT: frames 2j and 2j + 1 of the caller's
@@ -62,9 +76,30 @@
 //   the host and rounded once (no sincos on the card, no --use_fast_math),
 //   and the window, staged once a block (fft_stage).
 // * Every product and sum is __fmul_rn / __fadd_rn / __fsub_rn: nothing is
-//   contracted, so the plain version (ops/cuda/frames_fft.py:
-//   frames_rfft_reference), which repeats these operations in this order,
-//   rounds alike.
+//   contracted, so the plain versions (ops/cuda/frames_fft.py:
+//   frames_rfft_reference, frames_irfft_reference), which repeat these
+//   operations in this order, round alike.
+// * A pair stride: frames r and r + stride share an FFT (pairs of frames
+//   2 stride g + c and stride more, c < stride; stride 1, the default, is
+//   (2j, 2j + 1) as before).
+// * The inverse as the forward passes: Z = X_a + i X_b packed over k < n
+//   (X[n - k] = conj X[k]) goes in as conj Z, and conj(FFT(conj Z)) / n
+//   comes out as x_a + i x_b: the same passes, table and swizzle, the sign
+//   flipped at load and at store, 1 / n folded into wsyn (exact: n is a
+//   power of two).  The pack reads the imaginary parts at DC and nyquist of
+//   neither frame (irfft ignores them, and the packed FFT would not).
+// * The overlap-add with no atomics: with stride = n / hop (the overlap) the
+//   frames of one class r mod stride tile the signal without overlapping,
+//   so the teams of a class add straight into the caller's buffer; the
+//   classes run in order with a block barrier between them, so each sample
+//   collects its terms in class order, which the plain version
+//   (frames_fft.overlap_add_classes) repeats.  The callers number their
+//   frames so that a block's first frame starts a pair group of the whole
+//   signal: no frame's rounding depends on the block that computes it.
+// * frames_roundtrip keeps each pair's spectrum in its team's buffer: the
+//   forward FFT, the split (and the caller's change of the bins) and the
+//   pack write exactly the places they read, so the inverse follows with
+//   no barrier beyond the team's.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -169,144 +204,308 @@ __device__ __forceinline__ void fft_bfly4(float (&r)[4], float (&i)[4], int t, c
     }
 }
 
-// The windowed real DFT of frames r < n_frames, frame r = xs[r hop, r hop + n),
-// with `teams` pairs at a time (1 <= teams <= fft_max_teams(n)); emit(r, k, re,
-// im) for every k <= n / 2.  The window and the twiddles must have been staged
-// into s (fft_stage) and the samples written to xs before the call: it starts
-// with a barrier.  It ends with one, so what emit wrote to shared memory is
-// readable on return.
-template <typename Emit>
-__device__ void frames_rfft(const float* xs, int n_frames, int hop, int n, FftSmem s, int teams,
-                            Emit emit) {
-    __syncthreads();
-    const int G = fft_team_threads(n);
-    const int team = threadIdx.x / G;
-    const int j = threadIdx.x - team * G;
-    const bool has_team = team < teams;
-    float* re = s.buf + (size_t)(has_team ? team : 0) * fft_buf_floats(n);
-    float* im = re + n;
+// One team's view of the FFT area: its buffer (re, im), its index and the
+// thread's index in it.  Threads past the last team point at team 0's buffer
+// and are never active.
+struct FftTeam {
+    float* re;
+    float* im;
+    int team, j, G;
+    bool has_team;
+};
+
+__device__ __forceinline__ FftTeam fft_team(const FftSmem& s, int n, int teams) {
+    FftTeam t;
+    t.G = fft_team_threads(n);
+    t.team = threadIdx.x / t.G;
+    t.j = threadIdx.x - t.team * t.G;
+    t.has_team = t.team < teams;
+    t.re = s.buf + (size_t)(t.has_team ? t.team : 0) * fft_buf_floats(n);
+    t.im = t.re + n;
+    return t;
+}
+
+// The windowed frames x0 (and x1 when `two`, else zeros) into the team's
+// buffer as re and im.
+__device__ __forceinline__ void fft_load_pair(const FftTeam& t, const float* x0, const float* x1,
+                                              bool two, int n, const FftSmem& s) {
+    for (int i = t.j; i < n; i += t.G) {
+        const float w = s.win[i];
+        t.re[fft_swz(i)] = __fmul_rn(w, x0[i]);
+        t.im[fft_swz(i)] = two ? __fmul_rn(w, x1[i]) : 0.0f;
+    }
+}
+
+// The forward complex FFT of the team's buffer in place, natural order (the
+// Stockham passes of the note above).  Starts with a team barrier (the
+// buffer's writes are visible) and ends with one (the result is).  Every
+// thread of the block calls it; `active` those whose team holds a pair.
+__device__ __forceinline__ void fft_passes(const FftTeam& t, bool active, int n, const FftSmem& s) {
+    const int team = t.team, G = t.G, j = t.j;
+    float* re = t.re;
+    float* im = t.im;
     const int quarter = n >> 2;
     const int half = n >> 1;
     const int sixteenth = n >> 4;
     const int lg = 31 - __clz(n);
-    const int n_pairs = (n_frames + 1) >> 1;
-    const int n_rounds = (n_pairs + teams - 1) / teams;
-    for (int round = 0; round < n_rounds; ++round) {
-        const int pair = round * teams + team;
-        const bool active = has_team && pair < n_pairs;
-        const int r0 = 2 * pair;
-        const bool two = r0 + 1 < n_frames;
+    fft_team_sync(team, G);
+    int s_log = 0;  // log2 of the stride
+    for (int left = lg >> 1; left > 0;) {
+        float vr[4][4], vi[4][4];
+        if (left >= 2) {
+            // stages s and 4 s: group j = q + s p'; stage-s butterfly u is
+            // b_u = j + u n / 16, stage-4s butterfly k is q + s k + 4 s p'
+            const int q = j & ((1 << s_log) - 1);
+            const int ps = j - q;  // s p'
+            if (active) {
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+#pragma unroll
+                    for (int k = 0; k < 4; ++k) {
+                        const int idx = fft_swz(j + u * sixteenth + k * quarter);
+                        vr[u][k] = re[idx];
+                        vi[u][k] = im[idx];
+                    }
+                }
+            }
+            fft_team_sync(team, G);  // every read of the trip is done: write in place
+            if (active) {
+#pragma unroll
+                for (int u = 0; u < 4; ++u) fft_bfly4(vr[u], vi[u], ps + u * sixteenth, s);
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    float br[4], bi[4];
+#pragma unroll
+                    for (int u = 0; u < 4; ++u) {
+                        br[u] = vr[u][k];
+                        bi[u] = vi[u][k];
+                    }
+                    fft_bfly4(br, bi, 4 * ps, s);
+#pragma unroll
+                    for (int k3 = 0; k3 < 4; ++k3) {
+                        const int idx = fft_swz(q + (k << s_log) + 16 * ps + (k3 << (s_log + 2)));
+                        re[idx] = br[k3];
+                        im[idx] = bi[k3];
+                    }
+                }
+            }
+            s_log += 4;
+            left -= 2;
+        } else {
+            // one stage alone: butterflies b = j + u G, u < 4
+            if (active) {
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+#pragma unroll
+                    for (int k = 0; k < 4; ++k) {
+                        const int idx = fft_swz(j + u * G + k * quarter);
+                        vr[u][k] = re[idx];
+                        vi[u][k] = im[idx];
+                    }
+                }
+            }
+            fft_team_sync(team, G);
+            if (active) {
+                const int smask = (1 << s_log) - 1;
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    const int b = j + u * G;
+                    const int q = b & smask;
+                    fft_bfly4(vr[u], vi[u], b - q, s);
+                    const int o = 4 * b - 3 * q;
+#pragma unroll
+                    for (int k = 0; k < 4; ++k) {
+                        const int idx = fft_swz(o + (k << s_log));
+                        re[idx] = vr[u][k];
+                        im[idx] = vi[u][k];
+                    }
+                }
+            }
+            s_log += 2;
+            left -= 1;
+        }
+        fft_team_sync(team, G);
+    }
+    if (lg & 1) {  // the radix-2 stage, stride n / 2: no twiddle
         if (active) {
-            const float* x0 = xs + (size_t)r0 * hop;
-            const float* x1 = x0 + hop;
-            for (int i = j; i < n; i += G) {
-                const float w = s.win[i];
-                re[fft_swz(i)] = __fmul_rn(w, x0[i]);
-                im[fft_swz(i)] = two ? __fmul_rn(w, x1[i]) : 0.0f;
+            for (int b = j; b < half; b += G) {
+                const int i0 = fft_swz(b), i1 = fft_swz(b + half);
+                const float ar = re[i0], ai = im[i0], cr = re[i1], ci = im[i1];
+                re[i0] = __fadd_rn(ar, cr);
+                im[i0] = __fadd_rn(ai, ci);
+                re[i1] = __fsub_rn(ar, cr);
+                im[i1] = __fsub_rn(ai, ci);
             }
         }
         fft_team_sync(team, G);
-        int s_log = 0;  // log2 of the stride
-        for (int left = lg >> 1; left > 0;) {
-            float vr[4][4], vi[4][4];
-            if (left >= 2) {
-                // stages s and 4 s: group j = q + s p'; stage-s butterfly u is
-                // b_u = j + u n / 16, stage-4s butterfly k is q + s k + 4 s p'
-                const int q = j & ((1 << s_log) - 1);
-                const int ps = j - q;  // s p'
-                if (active) {
-#pragma unroll
-                    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-                        for (int k = 0; k < 4; ++k) {
-                            const int idx = fft_swz(j + u * sixteenth + k * quarter);
-                            vr[u][k] = re[idx];
-                            vi[u][k] = im[idx];
-                        }
-                    }
-                }
-                fft_team_sync(team, G);  // every read of the trip is done: write in place
-                if (active) {
-#pragma unroll
-                    for (int u = 0; u < 4; ++u) fft_bfly4(vr[u], vi[u], ps + u * sixteenth, s);
-#pragma unroll
-                    for (int k = 0; k < 4; ++k) {
-                        float br[4], bi[4];
-#pragma unroll
-                        for (int u = 0; u < 4; ++u) {
-                            br[u] = vr[u][k];
-                            bi[u] = vi[u][k];
-                        }
-                        fft_bfly4(br, bi, 4 * ps, s);
-#pragma unroll
-                        for (int k3 = 0; k3 < 4; ++k3) {
-                            const int idx = fft_swz(q + (k << s_log) + 16 * ps + (k3 << (s_log + 2)));
-                            re[idx] = br[k3];
-                            im[idx] = bi[k3];
-                        }
-                    }
-                }
-                s_log += 4;
-                left -= 2;
-            } else {
-                // one stage alone: butterflies b = j + u G, u < 4
-                if (active) {
-#pragma unroll
-                    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-                        for (int k = 0; k < 4; ++k) {
-                            const int idx = fft_swz(j + u * G + k * quarter);
-                            vr[u][k] = re[idx];
-                            vi[u][k] = im[idx];
-                        }
-                    }
-                }
-                fft_team_sync(team, G);
-                if (active) {
-                    const int smask = (1 << s_log) - 1;
-#pragma unroll
-                    for (int u = 0; u < 4; ++u) {
-                        const int b = j + u * G;
-                        const int q = b & smask;
-                        fft_bfly4(vr[u], vi[u], b - q, s);
-                        const int o = 4 * b - 3 * q;
-#pragma unroll
-                        for (int k = 0; k < 4; ++k) {
-                            const int idx = fft_swz(o + (k << s_log));
-                            re[idx] = vr[u][k];
-                            im[idx] = vi[u][k];
-                        }
-                    }
-                }
-                s_log += 2;
-                left -= 1;
-            }
-            fft_team_sync(team, G);
-        }
-        if (lg & 1) {  // the radix-2 stage, stride n / 2: no twiddle
-            if (active) {
-                for (int b = j; b < half; b += G) {
-                    const int i0 = fft_swz(b), i1 = fft_swz(b + half);
-                    const float ar = re[i0], ai = im[i0], cr = re[i1], ci = im[i1];
-                    re[i0] = __fadd_rn(ar, cr);
-                    im[i0] = __fadd_rn(ai, ci);
-                    re[i1] = __fsub_rn(ar, cr);
-                    im[i1] = __fsub_rn(ai, ci);
-                }
-            }
-            fft_team_sync(team, G);
-        }
+    }
+}
+
+// The two real spectra at bin k of the FFT Z of a pair in the team's buffer:
+// X_0[k] = (Z[k] + conj Z[n-k]) / 2, X_1[k] = (Z[k] - conj Z[n-k]) / 2i.
+__device__ __forceinline__ void fft_split(const FftTeam& t, int k, int n, float& ar, float& ai,
+                                          float& br, float& bi) {
+    const int ia = fft_swz(k), ib = fft_swz((n - k) & (n - 1));
+    const float a = t.re[ia], b = t.im[ia], c = t.re[ib], d = t.im[ib];
+    ar = __fmul_rn(__fadd_rn(a, c), 0.5f);
+    ai = __fmul_rn(__fsub_rn(b, d), 0.5f);
+    br = __fmul_rn(__fadd_rn(b, d), 0.5f);
+    bi = __fmul_rn(__fsub_rn(c, a), 0.5f);
+}
+
+// The windowed real DFT of frames r < n_frames, frame r = xs[r hop, r hop + n),
+// with `teams` pairs at a time (1 <= teams <= fft_max_teams(n)); emit(r, k, re,
+// im) for every k <= n / 2.  Frames r and r + stride share an FFT: pair p is
+// frames 2 stride (p / stride) + p mod stride and stride more, a partner at or
+// past n_frames a zero frame (stride 1: frames 2p and 2p + 1).  The window and
+// the twiddles must have been staged into s (fft_stage) and the samples
+// written to xs before the call: it starts with a barrier.  It ends with one,
+// so what emit wrote to shared memory is readable on return.
+template <typename Emit>
+__device__ void frames_rfft(const float* xs, int n_frames, int hop, int n, FftSmem s, int teams,
+                            Emit emit, int stride = 1) {
+    __syncthreads();
+    const FftTeam t = fft_team(s, n, teams);
+    const int half = n >> 1;
+    const int n_pairs = ((n_frames - 1) / (2 * stride) + 1) * stride;
+    const int n_rounds = (n_pairs + teams - 1) / teams;
+    for (int round = 0; round < n_rounds; ++round) {
+        const int p = round * teams + t.team;
+        const int g = p / stride;
+        const int r0 = 2 * stride * g + (p - g * stride);
+        const int r1 = r0 + stride;
+        const bool active = t.has_team && p < n_pairs && r0 < n_frames;
+        const bool two = r1 < n_frames;
+        if (active) fft_load_pair(t, xs + (size_t)r0 * hop, xs + (size_t)r1 * hop, two, n, s);
+        fft_passes(t, active, n, s);
         if (active) {  // split the pair
-            for (int k = j; k <= half; k += G) {
-                const int ia = fft_swz(k), ib = fft_swz((n - k) & (n - 1));
-                const float a = re[ia], b = im[ia], c = re[ib], d = im[ib];
-                emit(r0, k, __fmul_rn(__fadd_rn(a, c), 0.5f), __fmul_rn(__fsub_rn(b, d), 0.5f));
-                if (two) emit(r0 + 1, k, __fmul_rn(__fadd_rn(b, d), 0.5f), __fmul_rn(__fsub_rn(c, a), 0.5f));
+            for (int k = t.j; k <= half; k += t.G) {
+                float ar, ai, br, bi;
+                fft_split(t, k, n, ar, ai, br, bi);
+                emit(r0, k, ar, ai);
+                if (two) emit(r1, k, br, bi);
             }
         }
-        fft_team_sync(team, G);  // the buffer is free for the next round
+        fft_team_sync(t.team, t.G);  // the buffer is free for the next round
     }
     __syncthreads();
+}
+
+// What frames_irfft and frames_roundtrip share: frames r < n_frames, frame r
+// and r + stride through one inverse FFT (pairs as frames_rfft's), the pairs
+// of class c = r mod stride before those of class c + 1, a block barrier
+// between classes.  Per pair: prep(team, active, r0, r1, two) (frames_roundtrip:
+// the pair's forward FFT into the buffer); the packed spectrum from
+// spec(team, r0, r1, two, k, ar, ai, br, bi), k <= n / 2, written to the
+// buffer as conj Z (Z[k] = X_0[k] + i X_1[k] over k < n, X[n - k] = conj X[k],
+// the imaginary parts at DC and nyquist dropped); the forward passes; then
+// emit(r, i, v) of both frames' samples v = wsyn[i] Re / Im of conj(FFT(conj
+// Z)).  spec may read the buffer at k and n - k: the thread that packs bin k
+// writes exactly those two places.
+template <typename Prep, typename Spec, typename Emit>
+__device__ void frames_irfft_classes(int n_frames, int stride, int n, const FftSmem& s,
+                                     const float* wsyn, int teams, Prep prep, Spec spec,
+                                     Emit emit) {
+    __syncthreads();
+    const FftTeam t = fft_team(s, n, teams);
+    const int half = n >> 1;
+    for (int c = 0; c < stride; ++c) {
+        const int n_pairs = c < n_frames ? (n_frames - 1 - c) / (2 * stride) + 1 : 0;
+        const int n_rounds = (n_pairs + teams - 1) / teams;
+        for (int round = 0; round < n_rounds; ++round) {
+            const int g = round * teams + t.team;
+            const int r0 = 2 * stride * g + c;
+            const int r1 = r0 + stride;
+            const bool active = t.has_team && g < n_pairs;
+            const bool two = r1 < n_frames;
+            prep(t, active, r0, r1, two);
+            if (active) {
+                for (int k = t.j; k <= half; k += t.G) {
+                    float ar, ai, br, bi;
+                    spec(t, r0, r1, two, k, ar, ai, br, bi);
+                    const int ia = fft_swz(k);
+                    if (k == 0 || k == half) {
+                        t.re[ia] = ar;
+                        t.im[ia] = -br;
+                    } else {
+                        const int ib = fft_swz(n - k);
+                        t.re[ia] = __fsub_rn(ar, bi);
+                        t.im[ia] = -__fadd_rn(ai, br);
+                        t.re[ib] = __fadd_rn(ar, bi);
+                        t.im[ib] = __fsub_rn(ai, br);
+                    }
+                }
+            }
+            fft_passes(t, active, n, s);
+            if (active) {
+                for (int i = t.j; i < n; i += t.G) {
+                    const int idx = fft_swz(i);
+                    const float w = wsyn[i];
+                    emit(r0, i, __fmul_rn(w, t.re[idx]));
+                    if (two) emit(r1, i, -__fmul_rn(w, t.im[idx]));
+                }
+            }
+            fft_team_sync(t.team, t.G);  // the buffer is free for the next round
+        }
+        __syncthreads();  // this class's emits are done before the next class's
+    }
+}
+
+// The windowed inverse real DFT of frames r < n_frames whose spectra the
+// caller supplies: load(r, k, re, im) for k <= n / 2 (the imaginary parts at
+// DC and nyquist are not used), emit(r, i, v) for i < n with
+//   v = wsyn[i] sum_k c_k Re(X_r[k] e^{2 pi i k i / n}),  c_0 = c_{n/2} = 1, c_k = 2,
+// so wsyn holds the synthesis window over n (ops/cuda/frames_fft.py:
+// irfft_window).  Frames r and r + stride share an FFT; with stride = n / hop
+// the frames of one class r mod stride do not overlap, so emit may add each
+// into a sample buffer with no atomics, and each sample collects its terms in
+// class order.  The twiddles must have been staged into s and wsyn (n floats of
+// shared memory) written before the call: it starts with a barrier, and ends
+// with one.
+template <typename Load, typename Emit>
+__device__ void frames_irfft(int n_frames, int stride, int n, FftSmem s, const float* wsyn,
+                             int teams, Load load, Emit emit) {
+    frames_irfft_classes(
+        n_frames, stride, n, s, wsyn, teams, [](const FftTeam&, bool, int, int, bool) {},
+        [&](const FftTeam&, int r0, int r1, bool two, int k, float& ar, float& ai, float& br,
+            float& bi) {
+            load(r0, k, ar, ai);
+            br = 0.0f;
+            bi = 0.0f;
+            if (two) load(r1, k, br, bi);
+        },
+        emit);
+}
+
+// frames_rfft then frames_irfft of the same frames with no spectrum leaving
+// the team's buffer: frame r = xs[r hop, r hop + n) under s.win, its bins
+// handed to modify(r, k, re, im), which may change them in place, then
+// synthesized under wsyn and handed to emit(r, i, v) in class order.  The
+// pairs are frames_rfft's with this stride, so the plain version is
+// frames_rfft_reference and frames_irfft_reference with it.  Barriers as
+// frames_irfft's; xs written before the call.
+template <typename Modify, typename Emit>
+__device__ void frames_roundtrip(const float* xs, int n_frames, int hop, int n, FftSmem s,
+                                 const float* wsyn, int stride, int teams, Modify modify,
+                                 Emit emit) {
+    frames_irfft_classes(
+        n_frames, stride, n, s, wsyn, teams,
+        [&](const FftTeam& t, bool active, int r0, int r1, bool two) {
+            if (active) fft_load_pair(t, xs + (size_t)r0 * hop, xs + (size_t)r1 * hop, two, n, s);
+            fft_passes(t, active, n, s);
+        },
+        [&](const FftTeam& t, int r0, int r1, bool two, int k, float& ar, float& ai, float& br,
+            float& bi) {
+            fft_split(t, k, n, ar, ai, br, bi);
+            modify(r0, k, ar, ai);
+            if (two) {
+                modify(r1, k, br, bi);
+            } else {
+                br = 0.0f;
+                bi = 0.0f;
+            }
+        },
+        emit);
 }
 
 }  // namespace att

@@ -22,10 +22,20 @@
 //
 // What bounds it on this card: the function is bound by bytes (9 float
 // arrays of F values per frame) against an inverse and a forward FFT per
-// frame.  This design is not: it keeps the TPU kernel's two full-length
-// products, 2 * n_fft * F multiply-adds per frame for the synthesis and as
-// many for the analysis (2.1 M at n_fft 1024), about 230 flop per byte, so
-// its own ceiling is the card's fp32 FMA rate.
+// frame.  Two routes, chosen by n_fft alone (fft_covers, as the wrapper's
+// glstep._fullk_plan):
+// * the FFT route (gl_fullk_fft_kernel, a power of two from 64 to 4096):
+//   fft_smem.cuh's frames_irfft for the synthesis and frames_rfft for the
+//   analysis, an FFT's operations a frame; the samples of the block and the
+//   FFT area take 109 KB at 1024/256 (56 frames a block), so two blocks
+//   share an SM.  What holds it back: shared-memory passes and barriers, and
+//   the halo frames' synthesis done again by the neighbouring block (64
+//   frames synthesized for 56);
+// * the product route (gl_fullk_kernel, every other n_fft: 768, 8192, ...)
+//   keeps the TPU kernel's two full-length products, 2 * n_fft * F
+//   multiply-adds per frame for the synthesis and as many for the analysis
+//   (2.1 M at n_fft 1024), about 230 flop per byte, so its own ceiling is the
+//   card's fp32 FMA rate.  Its design follows.
 //
 // Design: a block owns one batch row and tile_t output frames t0 ..  Their
 // padded samples are the hop chunks t0 - 1 .. t0 - 2 + R (R <= 8 kRPT; the
@@ -42,22 +52,22 @@
 // place of the synthesis operands.  Blocks recompute their halo, so they are
 // independent; the time signal never leaves shared memory.  R and tile_t =
 // min(32, R - overlap) are chosen by the wrapper so that both phases fit
-// shared memory (R = 32 and 28 frames at n_fft 1024, hop 256; 15 and 7 at
-// 2048 / 256; 7 and 3 at 4096 / 1024).  An R that is no multiple of 8 leaves
-// the synthesis's last rows idle (synth_ola.cuh).  Where not even overlap + 2
-// chunks' whole [re | im] rows fit (n_fft 4096 at overlap 8, n_fft 8192), the
-// rows are built and multiplied in slabs of Ks contraction columns, each
-// slab's product added to the sample buffer: R = 32 chunks in slabs of 832
-// columns at 4096 / 512, R = 15 in slabs of 1056 at 8192 / 2048.
+// shared memory (R = 32 and 29 frames at n_fft 768, hop 256).  An R that is
+// no multiple of 8 leaves the synthesis's last rows idle (synth_ola.cuh).
+// Where not even overlap + 2 chunks' whole [re | im] rows fit (n_fft 8192),
+// the rows are built and multiplied in slabs of Ks contraction columns, each
+// slab's product added to the sample buffer: R = 15 in slabs of 1056 at
+// 8192 / 2048.
 //
-// Arithmetic is fp32 FMA with fp32 accumulation: no tensor cores yet.  What
-// keeps it from that ceiling: one block of 8 warps per SM (the [re | im]
-// rows of 35 frames take 148 KB), so latency is hidden by instruction-level
-// parallelism only, and the halo frames' synthesis is done again by the
-// neighbouring block.
+// Arithmetic is fp32 FMA with fp32 accumulation: no tensor cores.  What
+// keeps the product route from that ceiling: one block of 8 warps per SM
+// (the [re | im] rows of 35 frames take 148 KB at 768/256), so latency is
+// hidden by instruction-level parallelism only, and the halo frames'
+// synthesis is done again by the neighbouring block.
 #include <math.h>
 
 #include "dft_common.cuh"
+#include "fft_smem.cuh"
 #include "synth_ola.cuh"
 
 namespace att {
@@ -72,12 +82,16 @@ struct GlFullkArgs {
     const float* syn;   // (overlap, Kp, hop) windowed inverse DFT rows [A; B; 0]
     const float* wc;    // (n_fft, F) windowed analysis basis, cos
     const float* ws;    //                                   -sin
+    const float* win;   // FFT route: (n_fft,) window
+    const float* wsyn;  //            (n_fft,) window / n_fft
+    const float* fft_tw;  //          (2, n_fft) twiddle table
     float* nare;        // outputs (B, T, F)
     float* naim;
     float* rre;
     float* rim;
     int T, F, hop, overlap, Kp, rows, tile_t, n_tiles;
     int Ks;             // synthesis slab: contraction columns of [re | im] held at a time
+    int teams;          // FFT route: FFTs side by side (0: the product route)
     float mom;
 };
 
@@ -87,6 +101,40 @@ __host__ __device__ inline size_t gl_fullk_smem_floats(int rows, int overlap, in
     size_t syn = (size_t)(rows + overlap - 1) * Ks + (size_t)kSynKC * kSynCols;
     size_t ana = (size_t)ana_work_floats();
     return (size_t)rows * hop + (syn > ana ? syn : ana);
+}
+
+// The envelope division and the two reflections of the samples of chunks c0 ..
+// c0 + R - 1, in place (both routes).  Starts with a barrier.
+__device__ void gl_fullk_boundary(float* samples, const GlFullkArgs& a, int R, int c0) {
+    const int tid = threadIdx.x;
+    const int T = a.T, hop = a.hop, ov = a.overlap, m = a.overlap - 1;
+    __syncthreads();
+    for (int i = tid; i < R * hop; i += kThreads) {
+        const int c = c0 + i / hop;  // chunk of the un-trimmed signal
+        if (c >= 0 && c < T + m) samples[i] = __fdiv_rn(samples[i], __ldg(a.env + (size_t)c * hop + (i - (i / hop) * hop)));
+    }
+    __syncthreads();
+    // reflect padding of the trimmed signal u[half, half + L): padded sample
+    // j takes u[half + x], x the reflection of j - half with period 2 (L - 1)
+    // (the head u[n_fft - j] and the tail u[2 (L + half - 1) - j] when one
+    // reflection covers the pad; a clip of L <= half samples reflects again,
+    // as the eager loop's padding does); the sources lie inside the trimmed
+    // signal, so the pass can run in place
+    {
+        const long long half = (long long)ov * hop / 2;
+        const long long L = (long long)(T - 1) * hop;
+        const long long period = 2 * (L - 1);
+        const long long base = (long long)c0 * hop;
+        for (int i = tid; i < R * hop; i += kThreads) {
+            const long long j = base + i;
+            if (j < 0 || (j >= half && j < L + half)) continue;
+            long long x = (j - half) % period;
+            if (x < 0) x += period;
+            if (x >= L) x = period - x;
+            const long long src = half + x - base;
+            if (src >= 0 && src < (long long)R * hop) samples[i] = samples[src];
+        }
+    }
 }
 
 template <int kRPT>
@@ -135,33 +183,7 @@ __global__ void __launch_bounds__(kThreads) gl_fullk_kernel(GlFullkArgs a) {
         // synth_ola_tile starts with a barrier before it reads S
         synth_ola_tile<kRPT>(S, Bst, a.syn, Kp, hop, ov, 0, R, samples, s0, kw, s0 > 0);
     }
-    __syncthreads();
-    for (int i = tid; i < R * hop; i += kThreads) {
-        const int c = c0 + i / hop;  // chunk of the un-trimmed signal
-        if (c >= 0 && c < T + m) samples[i] /= __ldg(a.env + (size_t)c * hop + (i - (i / hop) * hop));
-    }
-    __syncthreads();
-    // reflect padding of the trimmed signal u[half, half + L): padded sample
-    // j takes u[half + x], x the reflection of j - half with period 2 (L - 1)
-    // (the head u[n_fft - j] and the tail u[2 (L + half - 1) - j] when one
-    // reflection covers the pad; a clip of L <= half samples reflects again,
-    // as the eager loop's padding does); the sources lie inside the trimmed
-    // signal, so the pass can run in place
-    {
-        const long long half = (long long)ov * hop / 2;
-        const long long L = (long long)(T - 1) * hop;
-        const long long period = 2 * (L - 1);
-        const long long base = (long long)c0 * hop;
-        for (int i = tid; i < R * hop; i += kThreads) {
-            const long long j = base + i;
-            if (j < 0 || (j >= half && j < L + half)) continue;
-            long long x = (j - half) % period;
-            if (x < 0) x += period;
-            if (x >= L) x = period - x;
-            const long long src = half + x - base;
-            if (src >= 0 && src < (long long)R * hop) samples[i] = samples[src];
-        }
-    }
+    gl_fullk_boundary(samples, a, R, c0);
     // analysis_tile starts with a barrier before it reads the samples
 
     // ---- analysis: frames t0 .. t0 + tile_t - 1 of the samples, momentum update
@@ -190,6 +212,78 @@ __global__ void __launch_bounds__(kThreads) gl_fullk_kernel(GlFullkArgs a) {
     }
 }
 
+// The FFT route's shared memory: the samples of `rows` chunks, frames_rfft's
+// area (window, twiddles, teams' buffers) and the synthesis window.
+__host__ __device__ inline size_t gl_fullk_fft_smem_floats(int rows, int hop, int n, int teams) {
+    return (size_t)rows * hop + fft_smem_floats(n, teams) + (size_t)n;
+}
+
+// J on the FFT route (n_fft = overlap hop a power of two from 64 to 4096): a
+// block owns one batch row and the tile_t frames t0 .. (tile_t a multiple of
+// 2 overlap), its samples the rows = tile_t + overlap chunks c0 = t0 - 1 ...
+// Synthesis: frames_irfft of the frames t0 - overlap .. t0 + tile_t + overlap
+// - 1 (pairs (f, f + overlap) for f mod 2 overlap >= overlap: the session-wide
+// pairing, so a frame's rounding does not depend on its block; the last
+// frame is only a partner), their spectra mag * (are, aim) read from device
+// memory, frames outside [0, T) zero and not added, every other frame added
+// into the samples in class order f mod overlap.  Then the envelope division
+// and the reflections in place, and frames_rfft of the tile's frames (pairs
+// (2j, 2j + 1): t0 is even) with the momentum update as its emit.  Every
+// operation is rounded on its own (__fmul_rn, ...), so that the plain version
+// (ops/cuda/glstep.py:gl_momentum_step_fullk_reference) repeats it.
+__global__ void __launch_bounds__(kThreads, 2) gl_fullk_fft_kernel(GlFullkArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    const int R = a.rows, T = a.T, F = a.F, hop = a.hop, ov = a.overlap;
+    const int n = ov * hop;
+    float* samples = smem;  // [R][hop]
+    const FftSmem fs = carve_fft(samples + (size_t)R * hop, n);
+    float* wsyn = fs.buf + (size_t)a.teams * fft_buf_floats(n);
+    const long long blk = blockIdx.x;
+    const long long b = blk / a.n_tiles;
+    const int t0 = (int)(blk - b * a.n_tiles) * a.tile_t;
+    const int c0 = t0 - 1;  // chunk of sample buffer row 0
+    const size_t bofs = (size_t)b * T * F;
+    fft_stage(a.win, a.fft_tw, fs, n);
+    for (int i = threadIdx.x; i < n; i += kThreads) wsyn[i] = __ldg(a.wsyn + i);
+    for (int i = threadIdx.x; i < R * hop; i += kThreads) samples[i] = 0.0f;
+    // local frame r is frame t0 - overlap + r; frames_irfft starts with a barrier
+    const int f0 = t0 - ov;
+    frames_irfft(
+        min(a.tile_t + 2 * ov, T - f0), ov, n, fs, wsyn, a.teams,
+        [&](int r, int k, float& re, float& im) {
+            const int f = f0 + r;
+            if (f < 0 || f >= T) {
+                re = 0.0f;
+                im = 0.0f;
+                return;
+            }
+            const size_t o = bofs + (size_t)f * F + k;
+            const float mg = __ldg(a.mag + o);
+            re = __fmul_rn(mg, __ldg(a.are + o));
+            im = __fmul_rn(mg, __ldg(a.aim + o));
+        },
+        [&](int r, int i, float v) {
+            const int f = f0 + r;
+            const int pos = (f - c0) * hop + i;
+            if (f >= 0 && f < T && pos >= 0 && pos < R * hop) samples[pos] = __fadd_rn(samples[pos], v);
+        });
+    gl_fullk_boundary(samples, a, R, c0);
+    // frames_rfft starts with a barrier
+    const float mom = a.mom;
+    frames_rfft(samples + hop, min(a.tile_t, T - t0), hop, n, fs, a.teams,
+                [&](int r, int k, float r_re, float r_im) {
+                    const size_t o = bofs + (size_t)(t0 + r) * F + k;
+                    const float ure = __fsub_rn(r_re, __fmul_rn(mom, __ldg(a.tre + o)));
+                    const float uim = __fsub_rn(r_im, __fmul_rn(mom, __ldg(a.tim + o)));
+                    const float nrm =
+                        fmaxf(__fsqrt_rn(__fadd_rn(__fmul_rn(ure, ure), __fmul_rn(uim, uim))), 1e-16f);
+                    a.rre[o] = r_re;
+                    a.rim[o] = r_im;
+                    a.nare[o] = __fdiv_rn(ure, nrm);
+                    a.naim[o] = __fdiv_rn(uim, nrm);
+                });
+}
+
 template <typename K>
 static cudaError_t gl_fullk_allow_smem(K kernel, size_t bytes) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -205,36 +299,61 @@ long long att_gl_fullk_smem_bytes(int rows, int overlap, int hop, int Ks) {
     return (long long)(att::gl_fullk_smem_floats(rows, overlap, hop, Ks) * sizeof(float));
 }
 
+// Shared memory of one block of the FFT route computing `rows` chunks with
+// `teams` FFTs side by side.
+long long att_gl_fullk_fft_smem_bytes(int rows, int hop, int n_fft, int teams) {
+    return (long long)(att::gl_fullk_fft_smem_floats(rows, hop, n_fft, teams) * sizeof(float));
+}
+
 // Kernel J.  Spectrogram arrays (B, T, F) float32 contiguous, outputs not
-// aliasing inputs; env (T + overlap - 1, hop); syn (overlap, Kp, hop) with Kp
-// a multiple of 32, Kp >= 2F; wc / ws (overlap * hop, F).  rows chunks per
-// block (overlap + 2 <= rows <= 32), tile_t <= min(32, rows - overlap)
-// frames; synthesis slabs of Ks columns, a multiple of 32 up to Kp; hop a
-// multiple of 32; T >= 2.  A clip whose reflection sources lie outside one
-// block's chunks (the wrapper checks) is not covered.  Returns a cudaError_t.
+// aliasing inputs; env (T + overlap - 1, hop); hop a multiple of 32; T >= 2.
+// teams > 0 selects the FFT route: n_fft = overlap hop a power of two from 64
+// to 4096, window and wsyn (n_fft,) (the window, and the window / n_fft),
+// fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft), 1 <= teams <= 4096 / n_fft,
+// tile_t a multiple of 2 overlap and rows = tile_t + overlap; syn, wc, ws,
+// Kp and Ks are not read.  teams == 0 selects the product route: syn
+// (overlap, Kp, hop) with Kp a multiple of 32, Kp >= 2F; wc / ws (overlap *
+// hop, F); rows chunks per block (overlap + 2 <= rows <= 32), tile_t <=
+// min(32, rows - overlap) frames; synthesis slabs of Ks columns, a multiple of
+// 32 up to Kp; window, wsyn and fft_tw are not read.  A clip whose reflection
+// sources lie outside one block's chunks (the wrapper checks) is not covered.
+// Returns a cudaError_t.
 int att_gl_fullk_step(const float* mag, const float* are, const float* aim, const float* tre,
                       const float* tim, const float* env, const float* syn, const float* wc,
-                      const float* ws, long long B, int T, int F, int hop, int overlap, int Kp,
-                      int rows, int tile_t, int Ks, float mom, float* nare, float* naim,
-                      float* rre, float* rim, void* stream) {
+                      const float* ws, const float* window, const float* wsyn,
+                      const float* fft_tw, long long B, int T, int F, int hop, int overlap,
+                      int Kp, int rows, int tile_t, int Ks, int teams, float mom, float* nare,
+                      float* naim, float* rre, float* rim, void* stream) {
     using namespace att;
-    if (B < 1 || T < 2 || overlap < 2 || hop % kKC != 0 || Kp % kSynKC != 0 || Kp < 2 * F ||
-        tile_t < 1 || tile_t > kRowGroup || tile_t + overlap > rows ||
-        Ks < kSynKC || Ks > Kp || Ks % kSynKC != 0 || rows < overlap + 2 || rows > 32) {
+    const int n_fft = overlap * hop;
+    const bool fft = teams > 0;
+    if (B < 1 || T < 2 || overlap < 2 || hop % kKC != 0 || tile_t < 1 ||
+        (fft && (!fft_covers(n_fft) || F != n_fft / 2 + 1 || teams > fft_max_teams(n_fft) ||
+                 tile_t % (2 * overlap) != 0 || rows != tile_t + overlap)) ||
+        (!fft && (Kp % kSynKC != 0 || Kp < 2 * F || tile_t > kRowGroup || tile_t + overlap > rows ||
+                  Ks < kSynKC || Ks > Kp || Ks % kSynKC != 0 || rows < overlap + 2 || rows > 32))) {
         return (int)cudaErrorInvalidValue;
     }
-    GlFullkArgs a;
+    GlFullkArgs a = {};
     a.mag = mag; a.are = are; a.aim = aim; a.tre = tre; a.tim = tim; a.env = env;
-    a.syn = syn; a.wc = wc; a.ws = ws;
+    a.syn = syn; a.wc = wc; a.ws = ws; a.win = window; a.wsyn = wsyn; a.fft_tw = fft_tw;
     a.nare = nare; a.naim = naim; a.rre = rre; a.rim = rim;
     a.T = T; a.F = F; a.hop = hop; a.overlap = overlap; a.Kp = Kp; a.rows = rows; a.tile_t = tile_t;
     a.n_tiles = (T + tile_t - 1) / tile_t;
     a.Ks = Ks;
+    a.teams = teams;
     a.mom = mom;
-    const size_t smem = gl_fullk_smem_floats(rows, overlap, hop, Ks) * sizeof(float);
+    const size_t smem = fft ? gl_fullk_fft_smem_floats(rows, hop, n_fft, teams) * sizeof(float)
+                            : gl_fullk_smem_floats(rows, overlap, hop, Ks) * sizeof(float);
     dim3 grid((unsigned)(B * a.n_tiles));
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
+    if (fft) {
+        err = gl_fullk_allow_smem(gl_fullk_fft_kernel, smem);
+        if (err != cudaSuccess) return (int)err;
+        gl_fullk_fft_kernel<<<grid, kThreads, smem, s>>>(a);
+        return (int)cudaGetLastError();
+    }
 #define ATT_LAUNCH_GLFK(RPT)                                                \
     do {                                                                    \
         err = gl_fullk_allow_smem(gl_fullk_kernel<RPT>, smem);              \

@@ -5,8 +5,10 @@
 //   session_encode_kernel<false>     <- _session_forward_kernel        (make_fused_forward_session)
 //   session_encode_kernel<true>      <- _analyze_mag, the analysis of _session_pghi_kernel
 //                                       (make_fused_pghi_roundtrip; pghi.cu holds its recurrence)
-//   session_roundtrip_kernel<., 0>   <- _session_kernel                (make_fused_roundtrip)
-//   session_roundtrip_kernel<., 1>   <- _session_random_kernel         (make_fused_random_roundtrip)
+//   session_roundtrip_fft_kernel<0>, session_roundtrip_kernel<., 0>
+//                                    <- _session_kernel                (make_fused_roundtrip)
+//   session_roundtrip_fft_kernel<1>, session_roundtrip_kernel<., 1>
+//                                    <- _session_random_kernel         (make_fused_random_roundtrip)
 //   session_decode_kernel<., false>  <- _session_random_invert_kernel  (make_fused_random_invert;
 //                                       also the synthesis of the RT-PGHI sessions N and Q, with
 //                                       the recurrence's phases as its angles)
@@ -33,9 +35,12 @@
 // |X| = sqrt(re^2 + im^2) instead (float32, no complex pass).  Where
 // fft_covers(n_fft) (a power of two from 64 to 4096) the encode computes the
 // DFT with fft_smem.cuh:frames_rfft (the FFT route); other shapes keep the
-// product below (the product route).  Roundtrip: the analysis of
-// the R + overlap - 1 frames that cover a block's R output chunks into
-// [re | im] rows in shared memory (for the random mode: |X| times (cos, sin)
+// product below (the product route).  The roundtrips likewise: where
+// fft_covers(n_fft), fft_smem.cuh:frames_roundtrip (each frame pair's
+// forward FFT, its bins, its inverse FFT in one team's buffer, the synthesis
+// overlap-added into the block's output chunks in class order); elsewhere the
+// products: the analysis of the R + overlap - 1 frames that cover a block's R
+// output chunks into [re | im] rows in shared memory (for the random mode: |X| times (cos, sin)
 // of the session's angles, read in), then the synthesis product of
 // synth_ola.cuh over those rows, with the synthesis window and the 1 / gain of
 // OverlapAdd folded into its basis.  Decode: the rows are mag * (cos, sin)
@@ -46,24 +51,26 @@
 // 20 flop per byte).  The product route is not: it keeps the TPU kernels'
 // full-length products, n_fft * F multiply-adds per frame and direction (cos
 // and sin), about 1 M at n_fft 1024, so its own ceiling is the card's fp32 FMA
-// rate.  The encode's FFT route does an FFT's operations and reads no basis
-// (fft_smem.cuh).
+// rate.  The FFT routes of the encode and the roundtrips do an FFT's
+// operations and read no basis (fft_smem.cuh); at 1024/256 a roundtrip block
+// of 24 output chunks (32 frames, 4 FFTs side by side) takes 108 KB, so two
+// share an SM.
 //
-// Design.  The analysis is the full-K product of dft_common.cuh for every
-// window (the DGT's gaussian has no cosine taps, and one design covers both
-// RealtimeSTFT and RealtimeDGT), written with its own epilogue: a block's
-// frames (at most 40) are rows of a shared-memory sample buffer at stride hop,
-// 128-bin column tiles, the window-folded basis (n_fft rounded up to 32 rows,
-// zero rows below) staged through shared memory 32 rows ahead of the
-// multiply-adds, a thread's 5 rows x 4 bins x (re, im) in registers, summed in
-// partial sums of 128 terms (kSumFold below; the synthesis likewise).  The
-// encode stores its sums straight to device memory; the roundtrip into the
-// [re | im] rows of the synthesis (row stride Kp, zero columns 2F .. Kp).  At
-// n_fft 1024, hop 256 a roundtrip block owns 32 chunks: samples 38 KB, rows of
-// 35 frames 148 KB, staging 32 KB, one block of 8 warps per SM.  Samples are
-// read from the signal with bounds checks (the zero ring and tail are never
-// materialized).  Arithmetic is fp32 FMA with fp32 accumulation; sincosf is
-// the full-range function (no --use_fast_math).
+// Design of the product route.  The analysis is the full-K product of
+// dft_common.cuh for every window (the DGT's gaussian has no cosine taps, and
+// one design covers both RealtimeSTFT and RealtimeDGT), written with its own
+// epilogue: a block's frames (at most 40) are rows of a shared-memory sample
+// buffer at stride hop, 128-bin column tiles, the window-folded basis (n_fft
+// rounded up to 32 rows, zero rows below) staged through shared memory 32 rows
+// ahead of the multiply-adds, a thread's 5 rows x 4 bins x (re, im) in
+// registers, summed in partial sums of 128 terms (kSumFold below; the
+// synthesis likewise).  The encode stores its sums straight to device memory;
+// the roundtrip into the [re | im] rows of the synthesis (row stride Kp, zero
+// columns 2F .. Kp).  At n_fft 1200, hop 300 a roundtrip block owns 24 chunks:
+// samples 36 KB, rows of 27 frames 131 KB, staging 32 KB, one block of 8 warps
+// per SM.  Samples are read from the signal with bounds checks (the zero ring
+// and tail are never materialized).  Arithmetic is fp32 FMA with fp32
+// accumulation; sincosf is the full-range function (no --use_fast_math).
 //
 // O (the pghi_gl sessions) is serial across chunks: chunk c + 1's seed and
 // pinned context are chunk c's polished phases, so no whole-session launch
@@ -104,8 +111,9 @@ struct SessionArgs {
     const float* wc;      // (Kn, F) window-folded analysis basis, cos; zero rows past n_fft
     const float* ws;      //                                      -sin
     const float* syn;     // (overlap, Kp, hop) synthesis basis [A; B; 0] * inv_window / gain
-    const float* win;     // encode's FFT route: (n_fft,) analysis window
-    const float* fft_tw;  //                      (2, n_fft) twiddle table
+    const float* win;     // FFT route: (n_fft,) analysis window
+    const float* wsyn;    //            (n_fft,) synthesis window / gain / n_fft (roundtrips)
+    const float* fft_tw;  //            (2, n_fft) twiddle table
     float* out;           // encode: (B, T, F, 2); roundtrip: (B, T hop); decode: (B, T hop)
     long long L;
     int T, Ta, F, hop, overlap, Kn, Kp, rows, n_tiles, teams;
@@ -261,6 +269,15 @@ __host__ __device__ inline size_t roundtrip_smem_floats(int rows, int overlap, i
     return (size_t)(n_rows - 1) * hop + Kn + (size_t)n_rows * Kp + kStageFloats;
 }
 
+// The roundtrips' FFT route: the samples of rows + 2 overlap frames, the output
+// chunks, frames_rfft's area and the synthesis window.
+__host__ __device__ inline size_t roundtrip_fft_smem_floats(int rows, int overlap, int hop,
+                                                            int teams) {
+    const int n = overlap * hop;
+    return (size_t)(rows + 2 * overlap - 1) * hop + n + (size_t)rows * hop + fft_smem_floats(n, teams) +
+           (size_t)n;
+}
+
 __host__ __device__ inline size_t decode_smem_floats(int rows, int overlap, int Kp) {
     return (size_t)(rows + overlap - 1) * Kp + kStageFloats;
 }
@@ -353,6 +370,64 @@ __global__ void __launch_bounds__(kThreads) session_roundtrip_kernel(SessionArgs
     // synth_ola_tile starts with a barrier before it reads S; it stores the
     // chunks below j_end and clamps the reads of the rows past them
     synth_ola_tile<kRPT, kSumFold>(S, stage, a.syn, Kp, hop, a.overlap, j0, j_end, a.out + (size_t)b * a.T * hop);
+}
+
+// L and M on the FFT route (n_fft a power of two from 64 to 4096): a block
+// owns `rows` output chunks j0 .. j_end - 1 (rows a multiple of 2 overlap) and
+// runs frames_roundtrip over the frames j0 - (overlap - 1) .. : local frame r
+// is frame j0 - (overlap - 1) + r, rows + 2 overlap of them at most, paired
+// (f, f + overlap) for (f + overlap - 1) mod 2 overlap < overlap (the pairing
+// of the whole session, so no frame's rounding depends on its block; the
+// frames past the block's last chunk are only partners).  The bins of frames
+// before 0 are zero (M: |X| (cos, sin)(angle) of the others), and their
+// samples are not added; the others are added into the block's output chunks
+// in class order, and the chunks stored.  Two blocks an SM at 1024/256.
+template <bool kRandom>
+__global__ void __launch_bounds__(kThreads, 2) session_roundtrip_fft_kernel(SessionArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    const int m = a.overlap - 1, F = a.F, hop = a.hop, ov = a.overlap, T = a.T;
+    const int n = ov * hop;
+    const long long blk = blockIdx.x;
+    const long long b = blk / a.n_tiles;
+    const int j0 = (int)(blk - b * a.n_tiles) * a.rows;
+    const int j_end = min(T, j0 + a.rows);
+    const int n_frames = min(a.rows + 2 * ov, T + m - j0);
+    float* xs = smem;                                            // frames' samples
+    float* out = xs + (size_t)(a.rows + 2 * ov - 1) * hop + n;   // [rows][hop]
+    const FftSmem fs = carve_fft(out + (size_t)a.rows * hop, n);
+    float* wsyn = fs.buf + (size_t)a.teams * fft_buf_floats(n);
+    fft_stage(a.win, a.fft_tw, fs, n);
+    for (int i = threadIdx.x; i < n; i += kThreads) wsyn[i] = __ldg(a.wsyn + i);
+    for (int i = threadIdx.x; i < a.rows * hop; i += kThreads) out[i] = 0.0f;
+    // frame f reads x[(f - m) hop, ..): local frame 0 starts 2 m hop before j0 hop
+    load_session_samples(a.x + (size_t)b * a.L, a.L, (long long)j0 * hop, 2 * m * hop,
+                         (n_frames - 1) * hop + n, xs);
+    const int f0 = j0 - m;
+    const float* ang = kRandom ? a.angles + (size_t)b * a.Ta * F : nullptr;
+    const int n_out = (j_end - j0) * hop;
+    frames_roundtrip(
+        xs, n_frames, hop, n, fs, wsyn, ov, a.teams,
+        [&](int r, int k, float& re, float& im) {
+            const int f = f0 + r;
+            if (f < 0) {
+                re = 0.0f;
+                im = 0.0f;
+            } else if (kRandom) {
+                const float mg = __fsqrt_rn(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
+                float sn, cs;
+                sincosf(__ldg(ang + (size_t)f * F + k), &sn, &cs);
+                re = __fmul_rn(mg, cs);
+                im = __fmul_rn(mg, sn);
+            }
+        },
+        [&](int r, int i, float v) {
+            const int f = f0 + r;
+            const int pos = (f - j0) * hop + i;
+            if (f >= 0 && pos >= 0 && pos < n_out) out[pos] = __fadd_rn(out[pos], v);
+        });
+    // frames_roundtrip ends with a barrier
+    float* dst = a.out + (size_t)b * T * hop + (size_t)j0 * hop;
+    for (int i = threadIdx.x; i < n_out; i += kThreads) dst[i] = out[i];
 }
 
 // P (kComplex = false) and S: a block owns `rows` output chunks j0 .. of one
@@ -458,6 +533,10 @@ long long att_session_roundtrip_smem_bytes(int rows, int overlap, int hop, int K
     return (long long)(att::roundtrip_smem_floats(rows, overlap, hop, Kn, Kp) * sizeof(float));
 }
 
+long long att_session_roundtrip_fft_smem_bytes(int rows, int overlap, int hop, int teams) {
+    return (long long)(att::roundtrip_fft_smem_floats(rows, overlap, hop, teams) * sizeof(float));
+}
+
 long long att_session_decode_smem_bytes(int rows, int overlap, int Kp) {
     return (long long)(att::decode_smem_floats(rows, overlap, Kp) * sizeof(float));
 }
@@ -508,26 +587,51 @@ int att_session_encode(const float* x, const float* wc, const float* ws, const f
 }
 
 // Kernels L (angles == nullptr) and M.  x (B, L); angles (B, Ta, F) with
-// Ta >= T; wc / ws as for R; syn (overlap, Kp, hop), Kp a multiple of 32 >=
-// 2F; out (B, T * hop), every sample written.  rows output chunks per block,
-// rows + overlap - 1 <= 40.  Returns a cudaError_t.
+// Ta >= T; out (B, T * hop), every sample written.  teams > 0 selects the FFT
+// route: n_fft = overlap hop a power of two from 64 to 4096, window (n_fft,)
+// the analysis window, wsyn (n_fft,) the synthesis window / gain / n_fft,
+// fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft), 1 <= teams <= 4096 / n_fft,
+// rows a multiple of 2 overlap; wc, ws, syn, Kn and Kp are not read.  teams ==
+// 0 selects the product route: wc / ws as for R; syn (overlap, Kp, hop), Kp a
+// multiple of 32 >= 2F; rows output chunks per block, rows + overlap - 1 <=
+// 40; window, wsyn and fft_tw are not read.  Returns a cudaError_t.
 int att_session_roundtrip(const float* x, const float* angles, const float* wc, const float* ws,
-                          const float* syn, float* out, long long B, long long L, int T, int Ta,
-                          int F, int hop, int overlap, int Kn, int Kp, int rows, void* stream) {
+                          const float* syn, const float* window, const float* wsyn,
+                          const float* fft_tw, float* out, long long B, long long L, int T, int Ta,
+                          int F, int hop, int overlap, int Kn, int Kp, int rows, int teams,
+                          void* stream) {
     using namespace att;
-    if (!session_args_ok(B, T, F, hop, overlap) || Kn % kKC != 0 || Kp % kSynKC != 0 ||
-        Kp < 2 * F || rows < 1 || rows + overlap - 1 > kMaxRows || (angles != nullptr && Ta < T)) {
+    const int n_fft = overlap * hop;
+    const bool fft = teams > 0;
+    if (!session_args_ok(B, T, F, hop, overlap) || rows < 1 || (angles != nullptr && Ta < T) ||
+        (fft && (!fft_covers(n_fft) || F != n_fft / 2 + 1 || teams > fft_max_teams(n_fft) ||
+                 rows % (2 * overlap) != 0)) ||
+        (!fft && (Kn % kKC != 0 || Kp % kSynKC != 0 || Kp < 2 * F || rows + overlap - 1 > kMaxRows))) {
         return (int)cudaErrorInvalidValue;
     }
     SessionArgs a = {};
     a.x = x; a.angles = angles; a.wc = wc; a.ws = ws; a.syn = syn; a.out = out;
+    a.win = window; a.wsyn = wsyn; a.fft_tw = fft_tw;
     a.L = L; a.T = T; a.Ta = Ta; a.F = F; a.hop = hop; a.overlap = overlap; a.Kn = Kn; a.Kp = Kp;
     a.rows = rows;
+    a.teams = teams;
     a.n_tiles = (T + rows - 1) / rows;
-    const size_t smem = roundtrip_smem_floats(rows, overlap, hop, Kn, Kp) * sizeof(float);
+    const size_t smem = fft ? roundtrip_fft_smem_floats(rows, overlap, hop, teams) * sizeof(float)
+                            : roundtrip_smem_floats(rows, overlap, hop, Kn, Kp) * sizeof(float);
     dim3 grid((unsigned)(B * a.n_tiles));
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
+    if (fft) {
+#define ATT_LAUNCH_RTF(RAND)                                                       \
+    do {                                                                           \
+        err = session_allow_smem(session_roundtrip_fft_kernel<RAND>, smem);        \
+        if (err != cudaSuccess) return (int)err;                                   \
+        session_roundtrip_fft_kernel<RAND><<<grid, kThreads, smem, s>>>(a);        \
+    } while (0)
+        if (angles != nullptr) ATT_LAUNCH_RTF(true); else ATT_LAUNCH_RTF(false);
+#undef ATT_LAUNCH_RTF
+        return (int)cudaGetLastError();
+    }
 #define ATT_LAUNCH_RT(RPT, RAND)                                                   \
     do {                                                                           \
         err = session_allow_smem(session_roundtrip_kernel<RPT, RAND>, smem);       \

@@ -165,11 +165,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.att_gl_project.restype = i
     lib.att_gl_fullk_smem_bytes.argtypes = [i, i, i, i]
     lib.att_gl_fullk_smem_bytes.restype = ll
+    lib.att_gl_fullk_fft_smem_bytes.argtypes = [i, i, i, i]
+    lib.att_gl_fullk_fft_smem_bytes.restype = ll
     lib.att_gl_fullk_step.argtypes = [
         p, p, p, p, p, p,                # mag, are, aim, tre, tim, env
-        p, p, p,                         # syn, wc, ws
+        p, p, p,                         # syn, wc, ws (or None)
+        p, p, p,                         # window, wsyn, fft_tw (or None)
         ll, i, i, i, i, i,               # B, T, F, hop, overlap, Kp
-        i, i, i, f,                      # rows, tile_t, slab, mom
+        i, i, i, i, f,                   # rows, tile_t, slab, teams (0: the product route), mom
         p, p, p, p, p,                   # nare, naim, rre, rim, stream
     ]
     lib.att_gl_fullk_step.restype = i
@@ -199,6 +202,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.att_session_encode_fft_smem_bytes.restype = ll
     lib.att_session_roundtrip_smem_bytes.argtypes = [i, i, i, i, i]
     lib.att_session_roundtrip_smem_bytes.restype = ll
+    lib.att_session_roundtrip_fft_smem_bytes.argtypes = [i, i, i, i]
+    lib.att_session_roundtrip_fft_smem_bytes.restype = ll
     lib.att_session_decode_smem_bytes.argtypes = [i, i, i]
     lib.att_session_decode_smem_bytes.restype = ll
     lib.att_session_encode.argtypes = [
@@ -208,9 +213,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.att_session_encode.restype = i
     lib.att_session_roundtrip.argtypes = [
-        p, p, p, p, p, p,                # x, angles (or None), wc, ws, syn, out
+        p, p, p, p, p,                   # x, angles (or None), wc, ws, syn (or None)
+        p, p, p, p,                      # window, wsyn, fft_tw (or None), out
         ll, ll, i, i, i, i, i, i, i, i,  # B, L, T, Ta, F, hop, overlap, Kn, Kp, rows
-        p,                               # stream
+        i, p,                            # teams (0: the product route), stream
     ]
     lib.att_session_roundtrip.restype = i
     lib.att_session_decode.argtypes = [

@@ -34,9 +34,13 @@ tensors it runs :func:`gl_momentum_step_reference`, the plain PyTorch version.
 momentum update).
 
 ``make_gl_momentum_step_fullk`` is the step for a window without cosine-sum
-taps (the DGT's gaussian, kernel J in ``csrc/glstep_fullk.cu``): the window
-lies in full-length inverse and forward DFT bases and the overlap-add runs on
-explicit synthesis frames.  Its boundary rule is the eager loop's, not the
+taps (the DGT's gaussian, kernel J in ``csrc/glstep_fullk.cu``): every frame
+is synthesized on its own and overlap-added, then analysed again.  Two
+routes, chosen by ``n_fft`` alone (:func:`_fullk_plan`): where
+``frames_fft.fft_covers(n_fft)`` (a power of two from 64 to 4096) the
+shared-memory FFT both ways (``csrc/fft_smem.cuh``: ``frames_irfft``, then
+``frames_rfft``), elsewhere full-length inverse and forward DFT bases with
+the window folded in.  Its boundary rule is the eager loop's, not the
 one above: the overlap-add signal (envelope floored at ``eps^2``) is trimmed
 to the centre and reflect-padded again before it is re-framed, so every
 frame equals one ``istft`` + ``stft`` of the eager loop.  The JAX kernel it
@@ -62,6 +66,17 @@ from ..fft import (
 )
 from ..framing import overlap_add
 from . import _build
+from .frames_fft import (
+    MAX_SMEM,
+    class_plan,
+    fft_covers,
+    fft_smem_floats,
+    fft_twiddles,
+    frames_irfft_reference,
+    frames_rfft_reference,
+    irfft_window,
+    overlap_add_classes,
+)
 from .spectral import _fullk_basis
 
 __all__ = [
@@ -77,21 +92,25 @@ __all__ = [
     "gl_momentum_step_fullk_reference",
     "gl_momentum_step_fullk_oracle",
     "launches",
+    "routes",
     "reset_launches",
 ]
 
 MAX_OVERLAP = 8                   # halo rows per side the kernel's tiles hold
-MAX_SMEM = 232448                 # bytes of shared memory a block may use on sm_90
 
 #: kernel launches made by the steps of this module, by kernel
 launches: Dict[str, int] = {
     "gl_momentum_step": 0, "gl_momentum_chain": 0, "gl_project": 0, "gl_momentum_fullk": 0,
 }
+#: the full-K step's launches by route, ``"gl_momentum_fullk:fft"`` /
+#: ``":product"`` (each also counts in ``launches``)
+routes: Dict[str, int] = {"gl_momentum_fullk:fft": 0, "gl_momentum_fullk:product": 0}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for d in (launches, routes):
+        for k in d:
+            d[k] = 0
 
 
 def _smem_bytes(tile_t: int, chain: int, overlap: int, hop: int) -> int:
@@ -453,6 +472,39 @@ def _pick_fullk_block(n_fft: int, hop: int) -> Optional[Tuple[int, int, int]]:
     return None
 
 
+def _fullk_fft_smem_bytes(rows: int, hop: int, n_fft: int, teams: int) -> int:
+    """Shared memory of one block of the full-K step's FFT route: the samples
+    of ``rows`` chunks, ``frames_rfft``'s area and the synthesis window."""
+    return 4 * (rows * hop + fft_smem_floats(n_fft, teams) + n_fft)
+
+
+def _pick_fullk_fft_block(n_fft: int, hop: int) -> Optional[Tuple[int, int, int]]:
+    """``(rows, tile_t, teams)`` of the FFT route (``fft_covers(n_fft)``):
+    ``tile_t`` frames a multiple of ``2 overlap`` (the synthesis's pair groups
+    start at the block's first frame, the analysis's pairs ``(2j, 2j + 1)`` at
+    an even one), ``rows = tile_t + overlap`` chunks, chosen by
+    ``frames_fft.class_plan`` with the analysis's ``tile_t / 2`` pairs."""
+    overlap = n_fft // hop
+    plan = class_plan(n_fft, hop, lambda t, teams: _fullk_fft_smem_bytes(t + overlap, hop, n_fft, teams),
+                      analysis_pairs=lambda t: t // 2)
+    if plan is None:
+        return None
+    tile_t, teams = plan
+    return tile_t + overlap, tile_t, teams
+
+
+def _fullk_plan(n_fft: int, hop: int) -> Optional[Tuple[str, int, int, int]]:
+    """The full-K step's route and block: ``("fft", rows, tile_t, teams)``
+    where ``fft_covers(n_fft)`` (:func:`_pick_fullk_fft_block`), else
+    ``("product", rows, tile_t, slab)`` (:func:`_pick_fullk_block`); None
+    when no block fits.  The route reads ``n_fft`` alone."""
+    if fft_covers(n_fft):
+        pick = _pick_fullk_fft_block(n_fft, hop)
+        return None if pick is None else ("fft",) + pick
+    pick = _pick_fullk_block(n_fft, hop)
+    return None if pick is None else ("product",) + pick
+
+
 def _fullk_reflection_covered(T: int, n_fft: int, hop: int, rows: int, tile_t: int) -> bool:
     """Whether every block finds its frames' reflected samples among its own
     chunks: always where one reflection covers the pad (``(T - 1) hop >
@@ -485,20 +537,44 @@ def _trim_reflect(signal: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
 
 
 def gl_momentum_step_fullk_reference(mag, are, aim, tre, tim, env, n_fft, hop_length, window, mom):
-    """Plain PyTorch version of the full-K step: one momentum-GL iteration on
-    ``(B, T, F)`` arrays, returning ``(nare, naim, rre, rim)``."""
-    from .pghi_kernel import _windowed_idft
+    """Plain version of the full-K step: one momentum-GL iteration on
+    ``(B, T, F)`` arrays, returning ``(nare, naim, rre, rim)``.  Where
+    ``fft_covers(n_fft)`` it repeats the FFT route's schedule (see
+    :func:`_fullk_fft_signal`; the analysis ``frames_rfft_reference``, the
+    update rounded step by step as the kernel rounds it); elsewhere the
+    products with the window-folded bases."""
+    w = window.to(mag.device)
+    if fft_covers(n_fft):
+        signal = _fullk_fft_signal(mag, are, aim, n_fft, hop_length, w) / env.reshape(-1)
+        reframed = _trim_reflect(signal, n_fft, hop_length).unfold(-1, n_fft, hop_length)
+        rre, rim = frames_rfft_reference(reframed, w)
+    else:
+        from .pghi_kernel import _windowed_idft
 
-    Aw, Bw = _windowed_idft(window.to(mag.device), n_fft)
-    frames = torch.matmul(mag * are, Aw) + torch.matmul(mag * aim, Bw)
-    signal = overlap_add(frames, hop_length) / env.reshape(-1)
-    WC, WS = _fullk_basis(window.to(mag.device), n_fft)
-    reframed = _trim_reflect(signal, n_fft, hop_length).unfold(-1, n_fft, hop_length)
-    rre, rim = torch.matmul(reframed, WC), torch.matmul(reframed, WS)
+        Aw, Bw = _windowed_idft(w, n_fft)
+        frames = torch.matmul(mag * are, Aw) + torch.matmul(mag * aim, Bw)
+        signal = overlap_add(frames, hop_length) / env.reshape(-1)
+        WC, WS = _fullk_basis(w, n_fft)
+        reframed = _trim_reflect(signal, n_fft, hop_length).unfold(-1, n_fft, hop_length)
+        rre, rim = torch.matmul(reframed, WC), torch.matmul(reframed, WS)
     ure = rre - mom * tre
     uim = rim - mom * tim
     n = torch.clamp_min(torch.sqrt(ure * ure + uim * uim), 1e-16)
     return ure / n, uim / n, rre, rim
+
+
+def _fullk_fft_signal(mag, are, aim, n_fft: int, hop: int, window) -> torch.Tensor:
+    """The FFT route's synthesis: the overlap-add ``(B, (T - 1) hop + n_fft)``
+    of ``frames_irfft`` of the spectra ``mag * (are, aim)``, as the kernel
+    pairs them (frames ``f`` and ``f + overlap`` for ``f mod 2 overlap >=
+    overlap``: frames 0 .. overlap - 1 pair with zero frames before the
+    clip) and sums them (class ``f mod overlap`` after class)."""
+    ov = n_fft // hop
+    lead = mag.new_zeros(mag.shape[:-2] + (ov, mag.shape[-1]))
+    re = torch.cat([lead, mag * are], dim=-2)
+    im = torch.cat([lead, mag * aim], dim=-2)
+    frames = frames_irfft_reference(re, im, irfft_window(window, n_fft), ov)[..., ov:, :]
+    return overlap_add_classes(frames, hop)
 
 
 def gl_momentum_step_fullk_oracle(mag, are, aim, tre, tim, env, n_fft, hop_length, window, mom):
@@ -552,24 +628,34 @@ def make_gl_momentum_step_fullk(
             "the CUDA full-K Griffin-Lim kernel does not cover n_fft=%d hop=%d "
             "(need hop | n_fft, 2 <= overlap <= 8 and hop %% 32 == 0)" % (n_fft, hop_length)
         )
-    pick = _pick_fullk_block(n_fft, hop_length)
-    if pick is None:
+    plan = _fullk_plan(n_fft, hop_length)
+    if plan is None:
         raise NotImplementedError(
             "the CUDA full-K Griffin-Lim kernel holds a block's samples and a slab "
             "of its frames in shared memory, which n_fft=%d hop=%d exceeds (ROADMAP "
             "Queue 2, K9); use fused=False" % (n_fft, hop_length)
         )
-    rows, tile_t, slab = pick
+    route, rows, tile_t, last = plan
     if not _fullk_reflection_covered(T, n_fft, hop_length, rows, tile_t):
         raise NotImplementedError(
             "the CUDA full-K Griffin-Lim kernel reflects a short clip inside one block, "
             "which %d frames at n_fft=%d hop=%d do not fit (ROADMAP Queue 2, K9); use "
             "fused=False" % (T, n_fft, hop_length)
         )
-    from .pghi_kernel import _synth_basis
+    if route == "fft":
+        # the FFT route reads the window, the window / n_fft and the twiddles
+        teams, slab, kp = last, 0, 0
+        (tw,) = _tables(fft_twiddles, dev, n_fft)
+        win = window.to(torch.float32).contiguous()
+        ops = (None, None, None, win, irfft_window(win, n_fft).contiguous(), tw)
+    else:
+        from .pghi_kernel import _synth_basis
 
-    syn = _synth_basis(window, n_fft, hop_length)
-    WC, WS = _fullk_basis(window, n_fft)
+        teams, slab = 0, last
+        syn = _synth_basis(window, n_fft, hop_length)
+        WC, WS = _fullk_basis(window, n_fft)
+        kp = syn.shape[1]
+        ops = (syn, WC, WS, None, None, None)
     lib = _build.load_library()
 
     def step(are, aim, tre, tim):
@@ -577,13 +663,14 @@ def make_gl_momentum_step_fullk(
         outs = [torch.empty((B, T, F), dtype=torch.float32, device=dev) for _ in range(4)]
         with torch.cuda.device(dev):
             code = lib.att_gl_fullk_step(
-                mag32.data_ptr(), *[a.data_ptr() for a in ins], env.data_ptr(), syn.data_ptr(),
-                WC.data_ptr(), WS.data_ptr(), B, T, F, hop_length, n_fft // hop_length,
-                syn.shape[1], rows, tile_t, slab, mom, *[o.data_ptr() for o in outs],
-                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+                mag32.data_ptr(), *[a.data_ptr() for a in ins], env.data_ptr(),
+                *[None if o is None else o.data_ptr() for o in ops],
+                B, T, F, hop_length, n_fft // hop_length, kp, rows, tile_t, slab, teams, mom,
+                *[o.data_ptr() for o in outs], ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
             )
         _build.check(code, "gl_momentum_fullk")
         launches["gl_momentum_fullk"] += 1
+        routes["gl_momentum_fullk:" + route] += 1
         return tuple(outs)
 
     return step, _to_rows, _from_rows

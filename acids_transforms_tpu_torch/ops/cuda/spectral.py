@@ -52,7 +52,15 @@ from ..fft import (
     _twiddles,
 )
 from . import _build
-from .frames_fft import fft_covers, fft_max_teams, fft_smem_floats, fft_twiddles, frames_rfft_reference
+from .frames_fft import (
+    MAX_SMEM,
+    TWO_BLOCKS_SMEM,
+    fft_covers,
+    fft_max_teams,
+    fft_smem_floats,
+    fft_twiddles,
+    frames_rfft_reference,
+)
 
 __all__ = [
     "fused_melspec",
@@ -73,8 +81,6 @@ __all__ = [
 ]
 
 TILES = (32, 16, 8)               # frames per block the kernels can run, widest first
-MAX_SMEM = 232448                 # bytes of shared memory a block may use on sm_90
-TWO_BLOCKS_SMEM = 233472 // 2 - 1024   # a block's share when two run on one SM (1 KB reserved each)
 _CONTRASTS = {"none": 0, None: 0, "log1p": 1}
 
 #: kernel launches made by the wrappers of this module, by kernel

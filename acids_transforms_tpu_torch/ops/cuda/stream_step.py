@@ -13,7 +13,11 @@ to three kernel launches instead of a Python loop of small ops per chunk
   ``(Kn, F)`` basis).  The rule reads ``n_fft`` alone;
 * ``make_fused_roundtrip`` (L): the complex roundtrip, audio -> audio;
 * ``make_fused_random_roundtrip`` (M): the ``random`` roundtrip (the
-  reference's default realtime mode), ``|X|`` with the session's angles;
+  reference's default realtime mode), ``|X|`` with the session's angles.
+  L and M take the FFT route where ``fft_covers(n_fft)``
+  (``csrc/fft_smem.cuh:frames_roundtrip``: each frame pair's forward and
+  inverse FFT in one team's buffer, the frames overlap-added in class order;
+  :func:`_roundtrip_plan`), the products elsewhere;
 * ``make_fused_random_invert`` (P): the ``random`` decode, magnitudes
   ``(..., T, F)`` -> audio ``(..., T * hop)``;
 * ``make_fused_pghi_roundtrip`` (N): the phaseless RT-PGHI roundtrip, three
@@ -51,10 +55,12 @@ its output the overlap-add of all synthesis frames at hop stride, cut at
 by OverlapAdd's ``gain_compensation`` (the chunked loop divides after the
 overlap-add: the two differ by rounding).  On a CUDA tensor each session
 launches its kernel or raises; on a CPU tensor it runs the plain PyTorch
-version beside it (``session_*_reference``: materialized frames, the analysis
-as ``frames_fft.frames_rfft_reference`` on the FFT route and ``torch.matmul``
-against the windowed bases elsewhere, in float32, ``ops/framing.overlap_add``),
-which is also what the kernels are held against on the card.
+version beside it (``session_*_reference``: materialized frames; on the FFT
+route ``frames_fft.frames_rfft_reference`` and, for L and M,
+``frames_irfft_reference`` and ``overlap_add_classes`` in the kernels'
+schedule; elsewhere ``torch.matmul`` against the windowed bases, in float32,
+and ``ops/framing.overlap_add``), which is also what the kernels are held
+against on the card.
 
 Gates.  ``fused_*_available`` keep the JAX package's structural conditions:
 ``OverlapAdd`` and a ``RealtimeSTFT``-family transform with the same ``(n_fft,
@@ -114,7 +120,18 @@ from ..fft import _dft_matrices, _idft_matrices, _tables
 from ..framing import frame, overlap_add
 from ..pghi import EPS, random_angles
 from . import _build
-from .frames_fft import fft_covers, fft_max_teams, fft_smem_floats, fft_twiddles, frames_rfft_reference
+from .frames_fft import (
+    MAX_SMEM,
+    class_plan,
+    fft_covers,
+    fft_max_teams,
+    fft_smem_floats,
+    fft_twiddles,
+    frames_irfft_reference,
+    frames_rfft_reference,
+    irfft_window,
+    overlap_add_classes,
+)
 from .pghi_kernel import _bins_per_thread, _fill_frame, ola_supported
 
 __all__ = [
@@ -133,7 +150,6 @@ __all__ = [
     "gl_project_reference", "session_pghi_gl_reference", "launches", "routes", "reset_launches",
 ]
 
-MAX_SMEM = 232448                 # bytes of shared memory a block may use on sm_90
 MAX_ROWS = 40                     # frames one block's analysis holds (8 warps x 5 rows)
 MAX_OVERLAP = 8
 _KC = 32                          # staged contraction rows (dft_common.cuh, synth_ola.cuh)
@@ -149,11 +165,13 @@ launches: Dict[str, int] = {
     "session_magnitude": 0, "rt_pghi_phases": 0, "session_complex_decode": 0,
     "rt_pghi_seeded": 0, "gl_project_synthesis": 0, "gl_project_analysis": 0,
 }
-#: the encode's launches by route, ``"<kernel>:fft"`` / ``"<kernel>:product"``
-#: (each also counts in ``launches``)
+#: the encode's and the roundtrips' launches by route, ``"<kernel>:fft"`` /
+#: ``"<kernel>:product"`` (each also counts in ``launches``)
 routes: Dict[str, int] = {
     "session_encode:fft": 0, "session_encode:product": 0,
     "session_magnitude:fft": 0, "session_magnitude:product": 0,
+    "session_roundtrip:fft": 0, "session_roundtrip:product": 0,
+    "session_random_roundtrip:fft": 0, "session_random_roundtrip:product": 0,
 }
 
 
@@ -309,6 +327,14 @@ def _roundtrip_smem_bytes(rows: int, overlap: int, hop: int, kn: int, kp: int) -
     return 4 * ((n_rows - 1) * hop + kn + n_rows * kp + _STAGE)
 
 
+def _roundtrip_fft_smem_bytes(rows: int, overlap: int, hop: int, teams: int) -> int:
+    """Shared memory of one roundtrip block on the FFT route: the samples of
+    ``rows + 2 overlap`` frames, the ``rows`` output chunks, ``frames_rfft``'s
+    area and the synthesis window."""
+    n = overlap * hop
+    return 4 * ((rows + 2 * overlap - 1) * hop + n + rows * hop + fft_smem_floats(n, teams) + n)
+
+
 def _decode_smem_bytes(rows: int, overlap: int, kp: int) -> int:
     return 4 * ((rows + overlap - 1) * kp + _STAGE)
 
@@ -363,6 +389,20 @@ def _encode_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
             rows //= 2
         teams //= 2
     return None
+
+
+@functools.lru_cache(maxsize=None)
+def _roundtrip_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
+    """``(rows, teams)`` of L's and M's launch, or None when no block fits.
+    The FFT route (``fft_covers(n_fft)``): ``frames_fft.class_plan`` (rows a
+    multiple of ``2 overlap``, two blocks an SM where they fit: 24 chunks and 4
+    FFTs at 1024/256); the product route: ``teams = 0`` and
+    :func:`_pick_rows`'s height."""
+    if not fft_covers(n_fft):
+        rows = _pick_rows("roundtrip", n_fft, hop)
+        return None if rows is None else (rows, 0)
+    overlap = n_fft // hop
+    return class_plan(n_fft, hop, lambda r, teams: _roundtrip_fft_smem_bytes(r, overlap, hop, teams))
 
 
 def _project_frames_fit(n_fft: int, hop: int, rows: int) -> bool:
@@ -505,13 +545,42 @@ def _synthesize(re, im, inv_window, gain: float, n_fft: int, hop: int, T: int) -
 def session_roundtrip_reference(x2d, window, inv_window, gain: float, n_fft: int, hop: int,
                                 n_frames: int, angles=None) -> torch.Tensor:
     """Plain version of kernels L (``angles=None``) and M: ``(B, n_frames *
-    hop)``; M's angles ``(B, >= n_frames, F)``."""
+    hop)``; M's angles ``(B, >= n_frames, F)``.  Where ``fft_covers(n_fft)``
+    it repeats the FFT route's schedule (:func:`_roundtrip_fft_reference`),
+    elsewhere the products of :func:`session_encode_reference` and the
+    synthesis."""
+    if fft_covers(n_fft):
+        return _roundtrip_fft_reference(x2d, window, inv_window, gain, n_fft, hop, n_frames, angles)
     re, im = session_encode_reference(x2d, window, n_fft, hop, n_frames)
     if angles is not None:
         a = angles[:, :n_frames]
         mag = torch.sqrt(re * re + im * im)
         re, im = mag * torch.cos(a), mag * torch.sin(a)
     return _synthesize(re, im, inv_window, gain, n_fft, hop, n_frames)
+
+
+def _roundtrip_fft_reference(x2d, window, inv_window, gain, n_fft, hop, T, angles=None):
+    """L and M on the FFT route, in the kernel's schedule: the frames from
+    ``-(overlap - 1)`` on (those before 0 all zero), paired ``(u, u +
+    overlap)`` for ``u mod 2 overlap < overlap`` counted from the first, through
+    ``frames_rfft_reference`` and ``frames_irfft_reference`` with that stride;
+    the bins of the frames before 0 zero (M: ``|X| (cos, sin)(angle)`` of the
+    others) and their samples dropped; the overlap-add in class order ``(f +
+    overlap - 1) mod overlap``, cut at ``T * hop``."""
+    ov = n_fft // hop
+    m = ov - 1
+    frames = frame(session_rows(x2d, n_fft, hop, T), n_fft, hop)
+    frames = torch.cat([frames.new_zeros((frames.shape[0], m, n_fft)), frames], dim=1)
+    re, im = frames_rfft_reference(frames, window.to(x2d.device), ov)
+    re[:, :m] = 0.0
+    im[:, :m] = 0.0
+    if angles is not None:
+        a = angles[:, :T]
+        mag = torch.sqrt(re[:, m:] * re[:, m:] + im[:, m:] * im[:, m:])
+        re[:, m:], im[:, m:] = mag * torch.cos(a), mag * torch.sin(a)
+    wsyn = irfft_window(inv_window.to(device=x2d.device, dtype=torch.float32) / gain, n_fft)
+    y = frames_irfft_reference(re, im, wsyn, ov)[:, m:]
+    return overlap_add_classes(y, hop, m)[:, : T * hop]
 
 
 def session_decode_reference(mag, angles, inv_window, gain: float, n_fft: int, hop: int) -> torch.Tensor:
@@ -666,21 +735,27 @@ def _checked_f32(a: torch.Tensor, dev, shape, what: str) -> torch.Tensor:
     return a.to(device=dev, dtype=torch.float32).contiguous()
 
 
-def _launch_roundtrip(x2d, angles, WC, WS, syn, n_fft, hop, T) -> torch.Tensor:
-    rows = _require("roundtrip", n_fft, hop)
+def _launch_roundtrip(x2d, angles, ops, n_fft, hop, T) -> torch.Tensor:
+    """L (``angles=None``) and M: ``(B, T * hop)``.  ``ops``:
+    :meth:`_Session.roundtrip_operands`, whose route ``fft_covers(n_fft)``
+    picks."""
+    _require("roundtrip", n_fft, hop)
+    rows, teams = _roundtrip_plan(n_fft, hop)
+    wc, ws, syn, win, wsyn, tw = ops
     B, F = x2d.shape[0], n_fft // 2 + 1
     out = torch.empty((B, T * hop), dtype=torch.float32, device=x2d.device)
     lib = _build.load_library()
     with torch.cuda.device(x2d.device):
         code = lib.att_session_roundtrip(
-            x2d.data_ptr(), None if angles is None else angles.data_ptr(), WC.data_ptr(),
-            WS.data_ptr(), syn.data_ptr(), out.data_ptr(), B, x2d.shape[1], T,
-            T if angles is None else angles.shape[1], F, hop, n_fft // hop, WC.shape[0],
-            syn.shape[1], rows, _stream(),
+            x2d.data_ptr(), None if angles is None else angles.data_ptr(),
+            *[None if o is None else o.data_ptr() for o in (wc, ws, syn, win, wsyn, tw)], out.data_ptr(),
+            B, x2d.shape[1], T, T if angles is None else angles.shape[1], F, hop, n_fft // hop,
+            0 if teams else wc.shape[0], 0 if teams else syn.shape[1], rows, teams, _stream(),
         )
     name = "session_roundtrip" if angles is None else "session_random_roundtrip"
     _build.check(code, name)
     launches[name] += 1
+    routes[name + (":fft" if teams else ":product")] += 1
     return out
 
 
@@ -804,6 +879,17 @@ class _Session:
 
     def synthesis(self):
         return _syn_basis(self.rt.inv_window, self.gain, self.n_fft, self.hop)
+
+    def roundtrip_operands(self):
+        """What L and M read besides the signal, ``(wc, ws, syn, window, wsyn,
+        twiddles)``: on the FFT route the analysis window, the synthesis
+        window over the gain and ``n_fft`` (``frames_fft.irfft_window``) and
+        the twiddle table; on the product route the window-folded bases."""
+        if fft_covers(self.n_fft):
+            (tw,) = _tables(fft_twiddles, self.rt.window.device, self.n_fft)
+            wsyn = irfft_window(self.rt.inv_window.to(torch.float32) / self.gain, self.n_fft)
+            return (None, None, None, self.rt.window.to(torch.float32).contiguous(), wsyn.contiguous(), tw)
+        return self.analysis() + (self.synthesis(), None, None, None)
 
     def magnitude(self, xb: torch.Tensor, ops, T: int) -> torch.Tensor:
         """``|X|`` ``(B, T, F)`` of the session's frames (``ops``:
@@ -943,14 +1029,13 @@ def make_fused_roundtrip(chain, chunk_size: int):
     chunk_size)`` up to float32 rounding (output delayed by ``(overlap - 1)
     hop`` samples, like every streaming roundtrip)."""
     s = _Session(chain, chunk_size // chain.transforms[1].hop_length)
-    WC, WS = s.analysis()
-    syn = s.synthesis()
+    ops = s.roundtrip_operands()
 
     def run(x: torch.Tensor) -> torch.Tensor:
         T = -(-x.shape[-1] // chunk_size) * s.T_c
         xb = _flat(x)
         if xb.is_cuda:
-            y = _launch_roundtrip(xb, None, WC, WS, syn, s.n_fft, s.hop, T)
+            y = _launch_roundtrip(xb, None, ops, s.n_fft, s.hop, T)
         else:
             y = session_roundtrip_reference(xb, s.rt.window, s.rt.inv_window, s.gain, s.n_fft,
                                             s.hop, T)
@@ -968,8 +1053,7 @@ def make_fused_random_roundtrip(chain, chunk_size: int, generator: Optional[torc
     ``scan_roundtrip(chain, x, chunk_size, inversion_mode="random",
     generator=g)`` with a generator in the same state."""
     s = _Session(chain, chunk_size // chain.transforms[1].hop_length)
-    WC, WS = s.analysis()
-    syn = s.synthesis()
+    ops = s.roundtrip_operands()
 
     def run(x: torch.Tensor) -> torch.Tensor:
         batch_shape = tuple(x.shape[:-1])
@@ -979,7 +1063,7 @@ def make_fused_random_roundtrip(chain, chunk_size: int, generator: Optional[torc
         a = (session_angles(batch_shape, n_chunks, s.T_c, s.F, xb.device, generator)
              if angles is None else _angles_3d(angles, xb.shape[0], T, s.F, xb.device))
         if xb.is_cuda:
-            y = _launch_roundtrip(xb, a, WC, WS, syn, s.n_fft, s.hop, T)
+            y = _launch_roundtrip(xb, a, ops, s.n_fft, s.hop, T)
         else:
             y = session_roundtrip_reference(xb, s.rt.window, s.rt.inv_window, s.gain, s.n_fft,
                                             s.hop, T, angles=a)

@@ -22,15 +22,19 @@ chunk; lookahead 4 too), all held against the generic chunk scan, and (phase
 4h) the dispatch outside the JAX package's gates: shapes no kernel covers
 (``STFT(1024, 300)``, ``RealtimeSTFT(1000, 250)``) on the eager route against
 the same calls on the CPU, and shapes the port's kernels take (1200/300) on
-the kernels.  The session encode (R, the magnitude encode) and the full-K
-melspec front end (E, F) have two routes, picked by n_fft alone: a
-shared-memory FFT (``csrc/fft_smem.cuh``) at a power of two from 64 to 4096,
-the window-folded product elsewhere.  Phases 3 and 4f hold the FFT route
-against its plain version within 1e-5 and against a float64 oracle at 1024,
-512, 2048 and (E, F) 4096, and the product route at 768/256 (E, F), 1200/300
-and 960/240 (R); the launch counters' route tally shows every main-path
-launch of the four on the FFT route, and phase 4h drives the product routes
-through the entry points (1200/300 sessions, a DGT(768, 256) chain).  Phase
+the kernels.  The session encode (R, the magnitude encode), the full-K
+melspec front end (E, F), the full-K Griffin-Lim step (J) and the streaming
+roundtrips (L, M) have two routes, picked by n_fft alone: a shared-memory
+FFT (``csrc/fft_smem.cuh``: ``frames_rfft`` for the analyses,
+``frames_irfft`` for the syntheses of J, L and M) at a power of two from 64
+to 4096, the window-folded products elsewhere.  Phases 3 and 4f hold the
+FFT route against its plain version (within 1e-5 for R, E and F; 1e-6 for
+J, L and M, which come out bit-identical) and against a float64 oracle at
+1024, 512, 2048 and 4096, and the product route at 768/256 (E, F, J),
+8192/2048 (J), 1200/300 (R, L, M) and 960/240 (R); the launch counters'
+route tally shows every main-path launch of the seven on the FFT route, and
+phase 4h drives the product routes through the entry points (1200/300
+sessions, a DGT(768, 256) chain's fit, forward and ``pghi_gl``).  Phase
 6 runs the floor sweep of A
 (``acids_transforms_tpu_torch.tools.sweep_kernel_floor``: kernel T, A cut
 after each of its stages) at the main path's shape, prints each stage's
@@ -47,7 +51,7 @@ prints
   formulation needs), and apart from the bound the fp32
   ceiling of the kernel's own design (the product's multiply-adds, or the
   FFT route's operations, at 67 TFLOP/s); ``front_end`` "fft" or "product"
-  on the rows of R, the magnitude encode, E and F, one row a route),
+  on the rows of R, the magnitude encode, E, F, J, L and M, one row a route),
 * the card's name and power limit as ``nvidia-smi`` gives them,
 * and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -496,9 +500,10 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     def route(label, fn, expect, main=True, front="fft"):
         """One run through the entry point, counters at 0 before and read
         after; the main routes' launches go into the kernels line.  Every
-        launch of the encode (R, the magnitude encode) must have taken the
-        route ``front``: "fft" at a power-of-two n_fft, "product" elsewhere;
-        the product route's launches are counted for its rows (4h)."""
+        launch of the encode (R, the magnitude encode) and of the roundtrips
+        (L, M) must have taken the route ``front``: "fft" at a power-of-two
+        n_fft, "product" elsewhere; the product route's launches are counted
+        for its rows (4h)."""
         zero_all()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -509,7 +514,7 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         fronts = {k: v for k, v in ss.routes.items() if v}
         log(f"  {label}: {ms:.1f} ms, launches {got}" + (f", encode routes {fronts}" if fronts else ""))
         require(got == expect and others() == 0, f"{label}: expected the launches {expect}, got {got}")
-        for k in ("session_encode", "session_magnitude"):
+        for k in ("session_encode", "session_magnitude", "session_roundtrip", "session_random_roundtrip"):
             require(ss.routes[f"{k}:{front}"] == ss.launches[k],
                     f"{label}: {k} launched {ss.launches[k]} times, {ss.routes[k + ':' + front]} on the {front} route")
         for k, v in got.items():
@@ -568,9 +573,11 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     e = rel_err(y_k, y_g)
     snr_k, snr_g = snr_of(sx, y_k), snr_of(sx, y_g)
     log(f"    kernel route vs generic scan: rel {e:.3e} (tol 1e-04); SNR after the {delay}-sample delay: kernel "
-        f"{snr_k:.2f} dB, generic {snr_g:.2f} dB (must be >= 100 and >= generic - 1)")
+        f"{snr_k:.2f} dB (the product design's, PR 4: 132.35 dB), generic {snr_g:.2f} dB (must be >= 100, "
+        f">= generic - 1 and >= 127.3, the generic scan's in PR 4)")
     require(tuple(y_k.shape) == (SB, SL) and torch.isfinite(y_k).all().item(), f"roundtrip output {tuple(y_k.shape)}")
-    require(e <= 1e-4 and snr_k >= 100.0 and snr_k >= snr_g - 1.0, "complex roundtrip out of budget")
+    require(e <= 1e-4 and snr_k >= 100.0 and snr_k >= snr_g - 1.0 and snr_k >= 127.3,
+            "complex roundtrip out of budget")
     quality = {"snr_kernel_db": snr_k, "snr_generic_db": snr_g}
 
     def random_pair(label, kernel_fn, generic_fn, expect):
@@ -628,7 +635,25 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
 
     # each kernel against its plain version: fp32 sums in another order than
     # cuBLAS (contractions of n_fft for the analysis, overlap x Kp for the
-    # synthesis), a few 1e-7 of the largest value; 2e-5 leaves a decade
+    # synthesis), a few 1e-7 of the largest value; 2e-5 leaves a decade.  L
+    # and M on the FFT route repeat their plain version's float32 operations
+    # in order (bit-identical on the card): 1e-6.  L and M also against a
+    # float64 oracle (torch.fft of the row-padded frames, |X| with the angles
+    # for M, irfft times the synthesis window over the gain, overlap-added):
+    # within 1e-5 of the largest sample on both routes.
+    def oracle_roundtrip(x, rt, gain, n_fft, hop, n_frames, ang=None):
+        fr = ss.session_rows(x, n_fft, hop, n_frames).double().unfold(-1, n_fft, hop) * rt.window.double()
+        spec = torch.fft.rfft(fr, dim=-1)
+        del fr
+        if ang is not None:
+            spec = torch.polar(spec.abs(), ang[:, :n_frames].double())
+        frames = torch.fft.irfft(spec, n=n_fft, dim=-1) * (rt.inv_window.double() / gain)
+        del spec
+        out = torch.zeros((x.shape[0], (n_frames - 1) * hop + n_fft), dtype=torch.float64, device=x.device)
+        for i in range(n_fft // hop):                      # piece i of every frame
+            out[:, i * hop: i * hop + n_frames * hop] += frames[..., i * hop: (i + 1) * hop].reshape(x.shape[0], -1)
+        return out[:, : n_frames * hop]
+
     def check_kernels(label, n_fft, hop, x, chunk):
         oadd, rt = T.OverlapAdd(n_fft, hop), T.RealtimeSTFT(n_fft=n_fft, hop_length=hop)
         chain = oadd + rt
@@ -650,20 +675,32 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
                   ss.session_decode_reference(mag, ang, rt.inv_window, gain, n_fft, hop)),
         }
         torch.cuda.synchronize()
+        fft = ff.fft_covers(n_fft)
         msg = []
         for key, (k_out, p_out) in pairs.items():
             e = rel_err(k_out, p_out)
-            msg.append(f"{key} {e:.3e}")
+            tol = 1e-6 if fft and key in ("L", "M") else 2e-5
+            same = " bit-identical" if torch.equal(k_out, p_out) else ""
+            msg.append(f"{key} {e:.3e} (tol {tol:.0e}{same})")
             require(k_out.shape == p_out.shape and torch.isfinite(k_out).all().item(), f"{key} {label}: bad output")
-            require(e <= 2e-5, f"{key} {label} disagrees with plain")
+            require(e <= tol, f"{key} {label} disagrees with plain")
+            if key in ("L", "M"):
+                o = oracle_roundtrip(x, rt, gain, n_fft, hop, Tn, ang if key == "M" else None)
+                e_o = rel_err(k_out.double(), o)
+                msg[-1] += f", oracle {e_o:.3e} (tol 1e-05)"
+                require(e_o <= 1e-5, f"{key} {label} disagrees with the float64 oracle")
+                del o
+            if key in ("R", "L", "M") and not fft:
+                key += "_product"
             errs[key] = max(errs.get(key, 0.0), abs_err(k_out, p_out))
-        log(f"  kernels vs plain, {label} (blocks: encode {ss._pick_rows('encode', n_fft, hop)} frames, "
-            f"roundtrip {ss._pick_rows('roundtrip', n_fft, hop)} / decode {ss._pick_rows('decode', n_fft, hop)} "
-            f"chunks): rel {', '.join(msg)} (tol 2e-05)")
+        log(f"  kernels vs plain, {label} ({'fft' if fft else 'product'} route of L and M; blocks: encode "
+            f"{ss._encode_plan(n_fft, hop)}, roundtrip {ss._roundtrip_plan(n_fft, hop)} as (rows, FFTs), decode "
+            f"{ss._pick_rows('decode', n_fft, hop)} chunks): rel {', '.join(msg)}")
 
     check_kernels(f"main shape {SB} x {SL}", N_FFT, HOP, sx, CH)
     check_kernels("512/128, 3 x 20000 (ragged)", 512, 128, sx[:3, :20000].contiguous(), 2048)
     check_kernels("2048/512, 2 x 30000 (ragged)", 2048, 512, sx[:2, :30000].contiguous(), 4096)
+    check_kernels("1200/300, 4 x 40000 (ragged)", 1200, 300, sx[:4, :40000].contiguous(), 2400)
 
     # R and the magnitude encode on the FFT route (fft_smem.cuh:frames_rfft)
     # against their plain version (frames_fft.frames_rfft_reference, the
@@ -1248,8 +1285,8 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     chain = T.OverlapAdd(n_fft, hop) + T.RealtimeSTFT(n_fft=n_fft, hop_length=hop)
     c_p = T.OverlapAdd(n_fft, hop, device="cpu") + T.RealtimeSTFT(n_fft=n_fft, hop_length=hop, device="cpu")
     n_ch = xs.shape[-1] // chunk
-    y_c = route("1200/300 complex roundtrip", lambda: streaming.scan_roundtrip(chain, xs, chunk),
-                {"session_roundtrip": 1}, main=False)
+    y_c = route("1200/300 complex roundtrip (the product route)", lambda: streaming.scan_roundtrip(chain, xs, chunk),
+                {"session_roundtrip": 1}, main=False, front="product")
     # R on the product route (n_fft 1200 is no power of two), counted for its row
     f_c, _ = route("1200/300 encode: scan_forward (the product route)",
                    lambda: streaming.scan_forward(chain, xs, chunk), {"session_encode": 1}, main=False,
@@ -1262,6 +1299,17 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     e_y = rel_err(y_c.cpu(), y_p)
     log(f"    the session vs the CPU's generic scan: rel {e_y:.3e} (tol 1e-04)")
     require(e_y <= 1e-4, "1200/300 complex roundtrip: the session differs from the generic scan")
+    # M on the product route, against the card's generic scan with a generator in the same state
+    y_m = route("1200/300 random roundtrip (the product route)",
+                lambda: streaming.scan_roundtrip(chain, xs, chunk, "random", generator=sgen(154)),
+                {"session_random_roundtrip": 1}, main=False, front="product")
+    y_mg = generic("1200/300 random generic", lambda: streaming.scan_roundtrip(
+        chain, xs, chunk, "random", generator=sgen(154), backend="generic"))
+    e_m = rel_err(y_m, y_mg)
+    log(f"    the session vs the generic scan (same seed): rel {e_m:.3e} (tol 1e-04)")
+    require(y_m.shape == y_mg.shape and torch.isfinite(y_m).all().item() and e_m <= 1e-4,
+            "1200/300 random roundtrip: the session differs from the generic scan")
+    del y_m, y_mg
     sw = torch.hann_window(n_fft, device=dev)
 
     def sc(y, extra=0):
@@ -1318,6 +1366,32 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
         f"eager chain rel {e_y:.3e} (tol 1e-04)")
     require(torch.isfinite(y_k).all().item() and e_off <= 1e-5 and e_scl <= 1e-5 and e_y <= 1e-4,
             "DGT(768, 256): the product route differs from the eager chain")
+    # J on the product route: that chain's pghi_gl inversion (n_fft 768 is no
+    # power of two), converging like the eager loop from the same seed
+    from acids_transforms_tpu_torch.ops.cuda import glstep as gs
+
+    dgt = d_fit[1]
+    draws = dgt._draws
+    zero()
+    rec = d_fit.invert(y_k, inversion_mode="pghi_gl")
+    torch.cuda.synchronize()
+    got = {k: v for k, v in gs.routes.items() if v}
+    log(f"  DGT(768, 256) pghi_gl invert: launches {gs.launches['gl_momentum_fullk']} J, routes {got}")
+    require(got == {"gl_momentum_fullk:product": dgt.gl_iterations} and torch.isfinite(rec).all().item(),
+            "DGT(768, 256) pghi_gl: J must launch on the product route every iteration")
+    counts["gl_momentum_fullk:product"] = got["gl_momentum_fullk:product"]
+    target = d_fit[2].invert(y_k)
+    ph0 = dgt.pghi(target, generator=torch.Generator(device=dev).manual_seed(dgt.seed + draws))
+    rec_e = dgt.griffin_lim(target, init_phase=ph0, fused=False)
+
+    def conv(y):
+        R = dgt(y.reshape(-1, y.shape[-1])).abs()
+        n = min(R.shape[-2], target.shape[-2])
+        return (torch.linalg.norm(R[:, :n] - target[:, :n]) / torch.linalg.norm(target)).item()
+    s_j, s_e = conv(rec), conv(rec_e)
+    log(f"    spectral convergence through J {s_j:.5f}, eager loop from the same seed {s_e:.5f} "
+        f"(must be < {max(1.15 * s_e, s_e + 0.02):.5f})")
+    require(s_j < max(1.15 * s_e, s_e + 0.02), "DGT(768, 256) pghi_gl: J converges worse than the eager loop")
 
 
 def sweep_phase(args, dev, mono, bank, off, scl, taps, kernels, bound_of, wrappers):
@@ -1530,10 +1604,19 @@ def main() -> int:
                         require(lib.att_melspec_fft_smem_bytes(t_s, hop_s, ov_s, f_s, tm)
                                 == spectral._fft_smem_bytes(t_s, hop_s, ov_s, f_s, tm),
                                 "melspec FFT route's shared-memory size: wrapper and source disagree")
+                rows_j, _, teams_j = glstep._pick_fullk_fft_block(n_fft_s, hop_s)
+                require(lib.att_gl_fullk_fft_smem_bytes(rows_j, hop_s, n_fft_s, teams_j)
+                        == glstep._fullk_fft_smem_bytes(rows_j, hop_s, n_fft_s, teams_j),
+                        "full-K GL FFT route's shared-memory size: wrapper and source disagree")
+            rows, teams = ss._roundtrip_plan(n_fft_s, hop_s)
+            require(teams > 0 and lib.att_session_roundtrip_fft_smem_bytes(rows, ov_s, hop_s, teams)
+                    == ss._roundtrip_fft_smem_bytes(rows, ov_s, hop_s, teams),
+                    "roundtrip FFT route's shared-memory size: wrapper and source disagree")
             n_fft_checked += 1
     log(f"    shared-memory sizes of the FFT route: wrapper and source agree at {n_fft_checked} shapes "
         f"(plans at {N_FFT}/{HOP}: encode {ss._encode_plan(N_FFT, HOP)}, E/F "
-        f"{spectral._kernel_plan(N_FFT, HOP, None)} as (rows or tile, FFTs side by side))")
+        f"{spectral._kernel_plan(N_FFT, HOP, None)}, L/M {ss._roundtrip_plan(N_FFT, HOP)} as (rows or "
+        f"tile, FFTs side by side); J {glstep._fullk_plan(N_FFT, HOP)} as (route, chunks, frames, FFTs))")
 
     # ------------------------------------------------ 3. kernels vs plain
     log("[3] each kernel against its plain PyTorch version on the card")
@@ -1874,8 +1957,12 @@ def main() -> int:
         ph = 2 * math.pi * torch.rand(mag.shape, generator=g, device=dev)
         st = (torch.cos(ph), torch.sin(ph), 0.1 * mag * torch.randn(mag.shape, generator=g, device=dev),
               0.1 * mag * torch.randn(mag.shape, generator=g, device=dev))
+        route = glstep._fullk_plan(n_fft, hop)[0]
+        glstep.reset_launches()
         step, to_rows, _ = glstep.make_gl_momentum_step_fullk(mag, n_fft, hop, w_s, mom)
         ko = step(*[to_rows(a) for a in st])
+        require(glstep.routes[f"gl_momentum_fullk:{route}"] == 1 and sum(glstep.routes.values()) == 1
+                and route == ("fft" if ff.fft_covers(n_fft) else "product"), f"J {name}: not on the {route} route")
         env = glstep._env_rows(mag.shape[1], n_fft, hop, w_s)
         po = glstep.gl_momentum_step_fullk_reference(mag, *st, env, n_fft, hop, w_s, mom)
         oo = glstep.gl_momentum_step_fullk_oracle(mag[:16], *[a[:16] for a in st], env, n_fft, hop, w_s, mom)
@@ -1890,12 +1977,19 @@ def main() -> int:
         u = torch.sqrt((po[2] - mom * st[2]) ** 2 + (po[3] - mom * st[3]) ** 2)
         wu = u / u.max()
         e_a = max(((ko[i] - po[i]).abs() * wu).max().item() for i in (0, 1))
-        log(f"  J {name}: projection vs plain {e_p:.3e} (tol 1e-04), vs float64 oracle {e_o:.3e} "
-            f"(tol 1e-05), vs one eager istft + stft {e_e:.3e} (tol 1e-05); angles weighted by |u| "
-            f"{e_a:.3e} (tol 1e-04); block of {glstep._pick_fullk_rows(n_fft, hop)} (chunks, frames)")
+        # the FFT route repeats its plain version's float32 operations in
+        # order (bit-identical on the card): 1e-6; the product route sums in
+        # another order than cuBLAS: 1e-4
+        tol = 1e-6 if route == "fft" else 1e-4
+        same = all(torch.equal(a, b) for a, b in zip(ko, po))
+        log(f"  J {name}, {route} route: projection vs plain {e_p:.3e} (tol {tol:.0e}; bit-identical "
+            f"{same}), vs float64 oracle {e_o:.3e} (tol 1e-05), vs one eager istft + stft {e_e:.3e} "
+            f"(tol 1e-05); angles weighted by |u| {e_a:.3e} (tol {tol:.0e}); block "
+            f"{glstep._fullk_plan(n_fft, hop)[1:]} (chunks, frames, FFTs or slab)")
         require(all(torch.isfinite(t).all().item() for t in ko), f"J {name}: not finite")
-        require(e_p <= 1e-4 and e_o <= 1e-5 and e_e <= 1e-5 and e_a <= 1e-4, f"J {name} disagrees")
-        errs["J"] = max(errs.get("J", 0.0), max(abs_err(ko[i], po[i]) for i in (2, 3)))
+        require(e_p <= tol and e_o <= 1e-5 and e_e <= 1e-5 and e_a <= tol, f"J {name} disagrees")
+        key = "J" if route == "fft" else "J_product"
+        errs[key] = max(errs.get(key, 0.0), max(abs_err(ko[i], po[i]) for i in (2, 3)))
 
     check_fullk("main shape", att.ops.stft(mono, N_FFT, HOP, w_dgt).abs(), N_FFT, HOP, args.seed + 41)
     w_kai = get_window("kaiser", N_FFT, device=dev)
@@ -1908,14 +2002,17 @@ def main() -> int:
         w_s = gaussian_dgt_window(n_fft, device=dev)
         check_fullk(f"{n_fft}/{hop}", att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop,
                     args.seed + n_fft + hop)
-    # where not even overlap + 2 chunks' whole [re | im] rows fit shared
-    # memory (4096/512, 8192/2048) J builds them in slabs; a clip of three
-    # frames reflects its trimmed signal twice (L = n_fft / 2)
-    for n_fft, hop in ((4096, 512), (8192, 2048)):
-        require(glstep._pick_fullk_rows(n_fft, hop) is None, f"{n_fft}/{hop} must take the slabbed block")
+    # 4096/512 on the FFT route (its product block would need slabs); the
+    # product route where n_fft is no power of two (768/256) or above 4096
+    # (8192/2048: not even overlap + 2 chunks' whole [re | im] rows fit shared
+    # memory, so J builds them in slabs); a clip of three frames reflects its
+    # trimmed signal twice (L = n_fft / 2)
+    for n_fft, hop in ((4096, 512), (768, 256), (8192, 2048)):
         w_s = gaussian_dgt_window(n_fft, device=dev)
-        check_fullk(f"{n_fft}/{hop} in slabs of {glstep._pick_fullk_block(n_fft, hop)[2]} columns",
-                    att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop, args.seed + n_fft + hop)
+        check_fullk(f"{n_fft}/{hop}", att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop,
+                    args.seed + n_fft + hop)
+    require(glstep._pick_fullk_rows(8192, 2048) is None and glstep._fullk_plan(8192, 2048)[3] == 1056,
+            "8192/2048 must take the product route's slabbed block")
     clip3 = att.ops.stft(mono[:, : 2 * HOP + 1].contiguous(), N_FFT, HOP, w_dgt).abs()
     require(clip3.shape[1] == 3, "the short clip must have three frames")
     check_fullk("3-frame clip (two reflections)", clip3, N_FFT, HOP, args.seed + 43)
@@ -2201,10 +2298,13 @@ def main() -> int:
     t1 = time.perf_counter()
     gl_counts = {**glstep.launches, **pghi_kernel.launches}
     gl_inv_ms = 1e3 * (t1 - t0)
-    log(f"  invert (pghi_gl) {gl_inv_ms:.1f} ms; launches {gl_counts}")
+    log(f"  invert (pghi_gl) {gl_inv_ms:.1f} ms; launches {gl_counts}, J's routes "
+        f"{ {k: v for k, v in glstep.routes.items() if v} }")
     require(gl_counts["pghi_phases"] == 1 and gl_counts["gl_momentum_fullk"] == dgt_f.gl_iterations
-            and gl_counts["pghi_synthesize"] == 0, "D': expected 1 recurrence and 30 J launches")
+            and glstep.routes["gl_momentum_fullk:fft"] == dgt_f.gl_iterations
+            and gl_counts["pghi_synthesize"] == 0, "D': expected 1 recurrence and 30 J launches on the FFT route")
     counts["gl_momentum_fullk"] = gl_counts["gl_momentum_fullk"]
+    counts["gl_momentum_fullk:fft"] = glstep.routes["gl_momentum_fullk:fft"]
     # I has no caller on any of the main paths: its launches there, all summed
     counts["gl_project"] = sum(c["gl_project"] for c in (counts, dgt_counts, r_counts, p_counts, gl_counts))
     require(counts["gl_project"] == 0, "gl_project was launched on a main path")
@@ -2518,26 +2618,43 @@ def main() -> int:
 
     # J at the D' shape: the DGT target magnitudes and a random state;
     # bytes and operations as C's (nine arrays; two FFTs and the momentum).
-    # Its design runs, per block of R chunks and tile_t frames, the
-    # synthesis product (R chunks x overlap x Kp x hop) and the analysis
+    # Its FFT route runs, per block of tile_t frames, frames_irfft of tile_t
+    # + 2 overlap frames (the halo recomputed) and frames_rfft of the tile's
+    # frames (fft_design_flops each), mag * angles and the momentum update
+    # (12 per bin) and the envelope division.  The product route (768/256
+    # here, on the same clips) runs, per block of R chunks and tile_t frames,
+    # the synthesis product (R chunks x overlap x Kp x hop) and the analysis
     # product (tile_t frames x n_fft x 2 x 128-column tiles).
-    jg = torch.Generator(device=dev).manual_seed(args.seed + 51)
-    jph = 2 * math.pi * torch.rand(dgt_target.shape, generator=jg, device=dev)
-    j_st = (torch.cos(jph), torch.sin(jph), torch.zeros_like(jph), torch.zeros_like(jph))
-    del jph
+    def j_state(shape, seed):
+        jg = torch.Generator(device=dev).manual_seed(seed)
+        jph = 2 * math.pi * torch.rand(shape, generator=jg, device=dev)
+        return (torch.cos(jph), torch.sin(jph), torch.zeros_like(jph), torch.zeros_like(jph))
+
+    j_st = j_state(dgt_target.shape, args.seed + 51)
     jstep, _, _ = glstep.make_gl_momentum_step_fullk(dgt_target, N_FFT, HOP, dgt_f.inv_window, mom)
     j_env = glstep._env_rows(Tn, N_FFT, HOP, dgt_f.inv_window)
-    j_rows, j_tile = glstep._pick_fullk_rows(N_FFT, HOP)
+    _, j_rows, j_tile, _ = glstep._fullk_plan(N_FFT, HOP)
     j_blocks = B * -(-Tn // j_tile)
-    j_flops = 2.0 * j_blocks * (j_rows * ov * pghi_kernel._k_padded(F) * HOP
-                                + j_tile * N_FFT * 2 * 128 * -(-F // 128)) + 10.0 * n_el
+    j_flops = (fft_design_flops(N_FFT, j_blocks * (j_tile + 2 * ov)) + fft_design_flops(N_FFT, B * Tn)
+               + 12.0 * n_el + float(B * (Tn + ov - 1) * HOP))
+    w_jp = gaussian_dgt_window(n_fft_p, device=dev)
+    jp_target = att.ops.stft(mono, n_fft_p, hop_p, w_jp).abs()
+    jp_st = j_state(jp_target.shape, args.seed + 53)
+    jp_step, _, _ = glstep.make_gl_momentum_step_fullk(jp_target, n_fft_p, hop_p, w_jp, mom)
+    jp_env = glstep._env_rows(Tp, n_fft_p, hop_p, w_jp)
+    _, jp_rows, jp_tile, jp_slab = glstep._fullk_plan(n_fft_p, hop_p)
+    jp_blocks = B * -(-Tp // jp_tile)
+    jp_flops = 2.0 * jp_blocks * (jp_rows * (n_fft_p // hop_p) * pghi_kernel._k_padded(Fp) * hop_p
+                                  + jp_tile * n_fft_p * 2 * 128 * -(-Fp // 128)) + 10.0 * el_p
+    jp_bytes = 9.0 * 4 * el_p + 4.0 * (Tp + n_fft_p // hop_p - 1) * hop_p
+    jp_need = 2 * fft_p + B * Tp * (3.0 * n_fft_p + 12.0 * Fp)
 
-    def lib_gl_fullk():
-        a = torch.complex(j_st[0], j_st[1])
-        sig = torch.istft((dgt_target * a).transpose(-2, -1), N_FFT, HOP, window=dgt_f.inv_window)
-        reb = torch.stft(sig, N_FFT, HOP, window=dgt_f.inv_window, center=True, pad_mode="reflect",
+    def lib_gl_fullk(target, st, n_fft, hop, w):
+        a = torch.complex(st[0], st[1])
+        sig = torch.istft((target * a).transpose(-2, -1), n_fft, hop, window=w)
+        reb = torch.stft(sig, n_fft, hop, window=w, center=True, pad_mode="reflect",
                          return_complex=True).transpose(-2, -1)
-        u = reb - mom * torch.complex(j_st[2], j_st[3])
+        u = reb - mom * torch.complex(st[2], st[3])
         return u / u.abs().clamp_min(1e-16), reb
 
     spectral_src = "acids_transforms_tpu_torch/csrc/spectral.cu"
@@ -2577,13 +2694,24 @@ def main() -> int:
              run=lambda: glstep.gl_project(gl_mag, *i_state, N_FFT, HOP, taps_main, window),
              plain=lambda: glstep.gl_project_reference(gl_mag, *i_state, N_FFT, HOP, taps_main, window),
              library=lib_project, bound=bound_of(i_bytes, i_need), ceiling=ceiling_of(gl_flops - 10.0 * n_el)),
-        dict(key="J", name="gl_momentum_fullk", source="acids_transforms_tpu_torch/csrc/glstep_fullk.cu",
+        dict(key="J", name="gl_momentum_fullk", front_end="fft",
+             source="acids_transforms_tpu_torch/csrc/glstep_fullk.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:571",
-             launches=counts["gl_momentum_fullk"],
+             launches=counts["gl_momentum_fullk:fft"],
              run=lambda: jstep(*j_st),
              plain=lambda: glstep.gl_momentum_step_fullk_reference(dgt_target, *j_st, j_env, N_FFT, HOP,
                                                                    dgt_f.inv_window, mom),
-             library=lib_gl_fullk, bound=bound_of(gl_bytes, gl_need), ceiling=ceiling_of(j_flops)),
+             library=lambda: lib_gl_fullk(dgt_target, j_st, N_FFT, HOP, dgt_f.inv_window),
+             bound=bound_of(gl_bytes, gl_need), ceiling=ceiling_of(j_flops)),
+        dict(key="J_product", name="gl_momentum_fullk_product", front_end="product",
+             source="acids_transforms_tpu_torch/csrc/glstep_fullk.cu (+ csrc/synth_ola.cuh, csrc/dft_common.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/glstep.py:571",
+             launches=counts["gl_momentum_fullk:product"],
+             run=lambda: jp_step(*jp_st),
+             plain=lambda: glstep.gl_momentum_step_fullk_reference(jp_target, *jp_st, jp_env, n_fft_p, hop_p,
+                                                                   w_jp, mom),
+             library=lambda: lib_gl_fullk(jp_target, jp_st, n_fft_p, hop_p, w_jp),
+             bound=bound_of(jp_bytes, jp_need), ceiling=ceiling_of(jp_flops)),
     ]
     # ---- the streaming sessions at phase 4f's shape (64 mono sessions of
     # 4 s, 688 frames each).  Bounds: R reads the signal and writes the
@@ -2592,25 +2720,28 @@ def main() -> int:
     # the angles read and, per bin, |X|, a sincos and two products (26
     # operations); P reads magnitudes and angles, writes the audio, one
     # inverse FFT, the window, the overlap-add and 22 operations per bin.
-    # The design of L, M, P and S runs the full-length products: the analysis
-    # of every frame a block holds (n_fft rounded to 32 x 128-bin column
-    # tiles, cos and sin) and the synthesis of 8 ceil(R / 8) chunks x overlap
-    # x Kp x hop per block; R's FFT route does fft_design_flops, its product
-    # route (1200/300 here, 592 frames a session) the analysis product.  The
-    # yardsticks (timed, used nowhere): torch.stft(center=False) on the padded
-    # rows; torch.fft.irfft x the synthesis window + fold.
+    # The design of P and S, and the product route of L and M (1200/300
+    # here, 592 frames a session), runs the full-length products: the
+    # analysis of every frame a block holds (n_fft rounded to 32 x 128-bin
+    # column tiles, cos and sin) and the synthesis of 8 ceil(R / 8) chunks x
+    # overlap x Kp x hop per block; R's FFT route does fft_design_flops, its
+    # product route the analysis product; the FFT route of L and M a forward
+    # and an inverse FFT (fft_design_flops each) of rows + 2 overlap frames a
+    # block of rows chunks.  The yardsticks (timed, used nowhere):
+    # torch.stft(center=False) on the padded rows; torch.fft.irfft x the
+    # synthesis window + fold.
     ss = stream["ss"]
     sx, s_rt, s_mags, s_ang, n_sf = (stream[k] for k in ("sx", "rt", "mags", "angles", "n_frames"))
     SB = sx.shape[0]
-    s_wc, s_ws = ss._ana_basis(s_rt.window, N_FFT, ss._k_analysis(N_FFT))
     s_ops = ss._encode_operands(s_rt.window, N_FFT)
     s_syn = ss._syn_basis(s_rt.inv_window, float(ov), N_FFT, HOP)
     s_fr = float(SB * n_sf)
     s_fft = 2.5 * N_FFT * math.log2(N_FFT) * s_fr
     s_in, s_out, s_spec = 4.0 * SB * STREAM_LEN, 4.0 * SB * n_sf * HOP, 8.0 * s_fr * F
     kn, kp, n_ct = ss._k_analysis(N_FFT), ss._k_padded(F), -(-F // 128)
-    r_rt, r_dec = ss._pick_rows("roundtrip", N_FFT, HOP), ss._pick_rows("decode", N_FFT, HOP)
+    r_rt, r_dec = ss._roundtrip_plan(N_FFT, HOP)[0], ss._pick_rows("decode", N_FFT, HOP)
     t_rt, t_dec = -(-n_sf // r_rt), -(-n_sf // r_dec)
+    s_rt_ops = ss._Session(stream["chain"], STREAM_CHUNK // HOP).roundtrip_operands()
 
     def ana_flops(n_rows):
         return 4.0 * n_rows * kn * 128 * n_ct
@@ -2618,7 +2749,7 @@ def main() -> int:
     def syn_flops(tiles, rows):
         return 2.0 * SB * tiles * 8 * -(-rows // 8) * ov * kp * HOP
 
-    rt_design = ana_flops(SB * (n_sf + t_rt * (ov - 1))) + syn_flops(t_rt, r_rt)
+    rt_design = 2.0 * fft_design_flops(N_FFT, SB * t_rt * (r_rt + 2 * ov)) + 3.0 * N_FFT * s_fr
     rt_need = 2 * s_fft + 3.0 * N_FFT * s_fr
     s_syn_window = s_rt.inv_window / ov
 
@@ -2637,6 +2768,28 @@ def main() -> int:
     def lib_encode_q():
         rows = ss.session_rows(sx, n_fft_q, hop_q, T_q)
         return torch.stft(rows, n_fft_q, hop_q, window=w_q, center=False, return_complex=True)
+
+    # L and M on the product route at 1200/300: the same functions, the
+    # window-folded products (rows + overlap - 1 frames' analysis, the
+    # synthesis product), overlap 4 and gain 4
+    ov_q = n_fft_q // hop_q
+    q_chain = T.OverlapAdd(n_fft_q, hop_q) + T.RealtimeSTFT(n_fft=n_fft_q, hop_length=hop_q)
+    q_rt = q_chain[1]
+    q_rt_ops = ss._Session(q_chain, 8).roundtrip_operands()
+    q_ang = 2 * math.pi * torch.rand((SB, T_q, F_q), device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(args.seed + 54))
+    r_q = ss._roundtrip_plan(n_fft_q, hop_q)[0]
+    t_q = -(-T_q // r_q)
+    q_design = (4.0 * SB * (T_q + t_q * (ov_q - 1)) * ss._k_analysis(n_fft_q) * 128 * -(-F_q // 128)
+                + 2.0 * SB * t_q * 8 * -(-r_q // 8) * ov_q * ss._k_padded(F_q) * hop_q)
+    q_need = 2 * q_fft + 3.0 * n_fft_q * q_fr
+    q_out = 4.0 * SB * T_q * hop_q
+
+    def lib_synth_q(S):
+        fr = torch.fft.irfft(S, n=n_fft_q) * (q_rt.inv_window / ov_q)
+        y = torch.nn.functional.fold(fr.transpose(1, 2), (1, (T_q - 1) * hop_q + n_fft_q), (1, n_fft_q),
+                                     stride=(1, hop_q))
+        return y.reshape(SB, -1)[:, : T_q * hop_q]
 
     def lib_synth(S):
         fr = torch.fft.irfft(S, n=N_FFT) * s_syn_window
@@ -2659,21 +2812,37 @@ def main() -> int:
              plain=lambda: ss.session_encode_reference(sx, w_q, n_fft_q, hop_q, T_q),
              library=lib_encode_q, bound=bound_of(s_in + 8.0 * q_fr * F_q, q_fft + n_fft_q * q_fr),
              ceiling=ceiling_of(q_ana)),
-        dict(key="L", name="session_roundtrip", source=stream_src, replaces=stream_tpu + ":211",
-             launches=counts["session_roundtrip"],
-             run=lambda: ss._launch_roundtrip(sx, None, s_wc, s_ws, s_syn, N_FFT, HOP, n_sf),
+        dict(key="L", name="session_roundtrip", source=stream_src + " (+ csrc/fft_smem.cuh)", front_end="fft",
+             replaces=stream_tpu + ":211", launches=counts["session_roundtrip:fft"],
+             run=lambda: ss._launch_roundtrip(sx, None, s_rt_ops, N_FFT, HOP, n_sf),
              plain=lambda: ss.session_roundtrip_reference(sx, s_rt.window, s_rt.inv_window, float(ov), N_FFT,
                                                           HOP, n_sf),
              library=lambda: lib_synth(lib_encode().transpose(1, 2)),
              bound=bound_of(s_in + s_out, rt_need), ceiling=ceiling_of(rt_design)),
-        dict(key="M", name="session_random_roundtrip", source=stream_src, replaces=stream_tpu + ":372",
-             launches=counts["session_random_roundtrip"],
-             run=lambda: ss._launch_roundtrip(sx, s_ang, s_wc, s_ws, s_syn, N_FFT, HOP, n_sf),
+        dict(key="M", name="session_random_roundtrip", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="fft", replaces=stream_tpu + ":372", launches=counts["session_random_roundtrip:fft"],
+             run=lambda: ss._launch_roundtrip(sx, s_ang, s_rt_ops, N_FFT, HOP, n_sf),
              plain=lambda: ss.session_roundtrip_reference(sx, s_rt.window, s_rt.inv_window, float(ov), N_FFT,
                                                           HOP, n_sf, angles=s_ang),
              library=lambda: lib_synth(torch.polar(lib_encode().transpose(1, 2).abs(), s_ang)),
              bound=bound_of(s_in + s_out + 4.0 * s_fr * F, rt_need + 26.0 * s_fr * F),
              ceiling=ceiling_of(rt_design + 26.0 * s_fr * F)),
+        dict(key="L_product", name="session_roundtrip_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
+             front_end="product", replaces=stream_tpu + ":211", launches=counts["session_roundtrip:product"],
+             run=lambda: ss._launch_roundtrip(sx, None, q_rt_ops, n_fft_q, hop_q, T_q),
+             plain=lambda: ss.session_roundtrip_reference(sx, q_rt.window, q_rt.inv_window, float(ov_q), n_fft_q,
+                                                          hop_q, T_q),
+             library=lambda: lib_synth_q(lib_encode_q().transpose(1, 2)),
+             bound=bound_of(s_in + q_out, q_need), ceiling=ceiling_of(q_design)),
+        dict(key="M_product", name="session_random_roundtrip_product",
+             source=stream_src + " (+ csrc/synth_ola.cuh)", front_end="product",
+             replaces=stream_tpu + ":372", launches=counts["session_random_roundtrip:product"],
+             run=lambda: ss._launch_roundtrip(sx, q_ang, q_rt_ops, n_fft_q, hop_q, T_q),
+             plain=lambda: ss.session_roundtrip_reference(sx, q_rt.window, q_rt.inv_window, float(ov_q), n_fft_q,
+                                                          hop_q, T_q, angles=q_ang),
+             library=lambda: lib_synth_q(torch.polar(lib_encode_q().transpose(1, 2).abs(), q_ang)),
+             bound=bound_of(s_in + q_out + 4.0 * q_fr * F_q, q_need + 26.0 * q_fr * F_q),
+             ceiling=ceiling_of(q_design + 26.0 * q_fr * F_q)),
         dict(key="P", name="session_random_decode", source=stream_src, replaces=stream_tpu + ":1328",
              launches=counts["session_random_decode"],
              run=lambda: ss._launch_decode(s_mags, s_ang, s_syn, N_FFT, HOP),
@@ -2847,8 +3016,9 @@ def main() -> int:
         log(f"  O projection at B={b}: host {h_ms:.4f} ms a projection to enqueue, card "
             f"{'not isolated' if d_ms is None else format(d_ms, '.4f') + ' ms'} a projection back to back")
 
-    # J after its repair, at 4096/512 (slabs of the synthesis rows), on the
-    # main path's clips: one step, kernel and plain version
+    # J at 4096/512 (the FFT route; its product block needed slabs of the
+    # synthesis rows), on the main path's clips: one step, kernel and plain
+    # version
     w_4k = gaussian_dgt_window(4096, device=dev)
     mag_4k = att.ops.stft(mono, 4096, 512, w_4k).abs()
     j4, _, _ = glstep.make_gl_momentum_step_fullk(mag_4k, 4096, 512, w_4k, mom)
@@ -2859,7 +3029,7 @@ def main() -> int:
     j4_ms = time_ms(lambda: j4(*st4), args.repeats)
     j4_plain = time_ms(lambda: glstep.gl_momentum_step_fullk_reference(mag_4k, *st4, env4, 4096, 512, w_4k, mom),
                        max(1, args.repeats // 2))
-    log(f"  J at 4096/512 ({tuple(mag_4k.shape)}, block {glstep._pick_fullk_block(4096, 512)}): {j4_ms:.3f} ms, "
+    log(f"  J at 4096/512 ({tuple(mag_4k.shape)}, {glstep._fullk_plan(4096, 512)}): {j4_ms:.3f} ms, "
         f"plain {j4_plain:.3f} ms")
     del mag_4k, ph4, st4, env4
 

@@ -182,7 +182,9 @@ def test_no_route_counted_on_the_cpu():
     SP.fused_melspec(torch.zeros(2, 3000), 512, 128, taps=None, window=torch.ones(512))
     assert not any(PK.routes.values()) and not any(SP.routes.values())
     assert set(PK.routes) == {"session_encode:fft", "session_encode:product",
-                              "session_magnitude:fft", "session_magnitude:product"}
+                              "session_magnitude:fft", "session_magnitude:product",
+                              "session_roundtrip:fft", "session_roundtrip:product",
+                              "session_random_roundtrip:fft", "session_random_roundtrip:product"}
     assert set(SP.routes) == {"fused_melspec_fullk:fft", "fused_melspec_fullk:product",
                               "fused_melspec_stats_fullk:fft", "fused_melspec_stats_fullk:product"}
 
