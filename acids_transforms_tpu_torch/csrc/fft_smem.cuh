@@ -13,10 +13,15 @@
 //       _session_forward_kernel (R) and _analyze_mag (the magnitude encode of N)
 //   spectral.cu:block_magnitudes<., kFrontFft>     <- ops/pallas/spectral.py:
 //       _forward_kernel (E) and _stats_kernel (F), full-K
+//   spectral.cu:repr_forward_kernel / repr_stats_kernel<., kFrontFft>
+//                                                  <- ops/pallas/spectral.py:
+//       _repr_kernel (G) and _repr_stats_kernel (H), full-K
 //   glstep_fullk.cu:gl_fullk_fft_kernel            <- ops/pallas/glstep.py:
 //       _gl_kernel_fullk_momentum (J): frames_irfft, then frames_rfft
 //   stream_step.cu:session_roundtrip_fft_kernel    <- ops/pallas/stream_step.py:
 //       _session_kernel (L) and _session_random_kernel (M): frames_roundtrip
+//   pghi.cu:pghi_synthesize_fft_kernel             <- ops/pallas/pghi_kernel.py:
+//       _pghi_invert_kernel's synthesis (K): frames_irfft
 //
 // What they compute.  frames_rfft: X_r[k] = sum_n w[n] xs[r hop + n] e^{-2 pi
 // i n k / n} for k <= n / 2 of every frame r < n_frames of a sample buffer

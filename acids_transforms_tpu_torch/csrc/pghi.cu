@@ -3,8 +3,11 @@
 //
 // Replaces, from the JAX package's ops/pallas/pghi_kernel.py:
 //   pghi_phases_kernel      <- _pghi_invert_kernel, recurrence part (emit_phases, bidir)
-//   pghi_synthesize_kernel  <- _pghi_invert_kernel, synthesis part (phases_in), with
-//                              ops/pallas/ola.py:ola_accumulate
+//   pghi_synthesize_fft_kernel, pghi_synthesize_kernel
+//                           <- _pghi_invert_kernel, synthesis part (phases_in), with
+//                              ops/pallas/ola.py:ola_accumulate: the FFT route
+//                              (fft_smem.cuh:frames_irfft) where n_fft is a power of
+//                              two from 64 to 4096, the product route elsewhere
 // pghi_invert_fused is the first followed by the second.  And from
 // ops/pallas/stream_step.py:
 //   rt_pghi_phases_kernel   <- _rt_pghi_phases, the recurrence of the streaming
@@ -16,10 +19,11 @@
 // bytes or operations: per frame a clip does a few operations on F values, but
 // frame t needs frame t - 1, so a clip is one chain of T dependent steps.  The
 // function as a whole (magnitudes and angles read once, audio written once,
-// against an inverse FFT's operations) is bound by bytes.  The synthesis
-// kernel of this design is not: it keeps the product form of the kernel it
-// replaces, 2F * n_fft multiply-adds per frame (1.05 M at n_fft 1024), so its
-// own ceiling is the card's fp32 FMA rate.
+// against an inverse FFT's operations) is bound by bytes.  The synthesis on
+// the FFT route does an inverse FFT's operations a frame; on the product
+// route it keeps the product form of the kernel it replaces, 2F * n_fft
+// multiply-adds per frame (1.05 M at n_fft 1024, 41 times the FFT's), so that
+// route's own ceiling is the card's fp32 FMA rate.
 //
 // Design.  Two kernels, because the two halves want opposite shapes: the
 // recurrence is serial in time and independent across clips, so one thread
@@ -62,12 +66,28 @@
 // sessions (stream_step.cu) run it one chunk at a time, since each chunk's
 // seed starts from the previous chunk's polished phases.
 //
-// Synthesis: see synth_ola.cuh.  A block computes mag * (cos, sin)(phase) of
-// its R + overlap - 1 frames once into shared memory (sincosf of arguments up
-// to 1e6 takes the slow range reduction, so it is not repeated per column
-// pass) and runs the product over them.
+// Synthesis, FFT route (pghi_synthesize_fft_kernel): a block owns R output
+// chunks of one clip (R a multiple of 2 overlap) and runs fft_smem.cuh:
+// frames_irfft over the frames behind them, each spectrum bin loaded as
+// (__fmul_rn(m, cos phi), __fmul_rn(m, sin phi)) with one sincosf (the
+// full-range reduction: unwrapped phases reach 1e5 rad), the synthesis
+// window / n_fft folded into wsyn, the overlap-add by classes into a shared
+// sample buffer with no atomics.  Frames pair as (f, f + overlap) for f mod 2
+// overlap < overlap over the whole clip, and a block synthesizes the partner
+// of a halo frame even where it drops the partner's samples, so that no
+// sample's rounding depends on the block that computed it: the plain version
+// (ops/cuda/pghi_kernel.py:pghi_synthesize_fused_reference) runs
+// frames_irfft_reference and overlap_add_classes over the whole clip and
+// repeats it.  No basis.
+//
+// Synthesis, product route (pghi_synthesize_kernel, every other n_fft): see
+// synth_ola.cuh.  A block computes mag * (cos, sin)(phase) of its R + overlap
+// - 1 frames once into shared memory (sincosf of arguments up to 1e6 takes
+// the slow range reduction, so it is not repeated per column pass) and runs
+// the product over them.
 #include <math.h>
 
+#include "fft_smem.cuh"
 #include "synth_ola.cuh"
 
 namespace att {
@@ -612,6 +632,70 @@ __global__ void __launch_bounds__(kSynThreads) pghi_synthesize_kernel(SynthArgs 
                          p.out + (size_t)b * n_chunks * p.hop);
 }
 
+struct SynthFftArgs {
+    const float* mag;     // (B, T, F)
+    const float* phases;  // (B, T, F)
+    const float* wsyn;    // (n_fft,): the synthesis window / n_fft
+    const float* fft_tw;  // (2, n_fft): (cos, -sin)(2 pi j / n_fft)
+    float* out;           // (B, (T + overlap - 1) * hop)
+    int T, F, hop, overlap, rows, teams, n_tiles;
+};
+
+// The samples of `rows` chunks, then frames_rfft's area, whose window slot
+// holds wsyn.
+__host__ __device__ inline size_t pghi_synth_fft_smem_floats(int rows, int hop, int n, int teams) {
+    return (size_t)rows * hop + fft_smem_floats(n, teams);
+}
+
+// K's synthesis on the FFT route: a block owns one clip and the output chunks
+// c0 .. c0 + rows - 1 (c0 and rows multiples of 2 overlap).  frames_irfft
+// runs the frames c0 - 2 overlap .. c0 + rows - 1 with pair stride overlap:
+// local frame r is frame c0 - 2 overlap + r, so the block's pairs are the
+// clip's (f, f + overlap) for f mod 2 overlap < overlap; the first group's
+// first frames, and frames outside [0, T), are synthesized or loaded as zeros
+// but add nothing.  Each sample collects its frames in class order f mod
+// overlap.
+__global__ void __launch_bounds__(kThreads, 2) pghi_synthesize_fft_kernel(SynthFftArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    const int R = a.rows, T = a.T, F = a.F, hop = a.hop, ov = a.overlap;
+    const int n = ov * hop;
+    float* samples = smem;  // [R][hop]
+    const FftSmem fs = carve_fft(samples + (size_t)R * hop, n);
+    const long long blk = blockIdx.x;
+    const long long b = blk / a.n_tiles;
+    const int c0 = (int)(blk - b * a.n_tiles) * R;
+    const int n_chunks = T + ov - 1;
+    const size_t bofs = (size_t)b * T * F;
+    fft_stage(a.wsyn, a.fft_tw, fs, n);  // wsyn in the window's slot
+    for (int i = threadIdx.x; i < R * hop; i += kThreads) samples[i] = 0.0f;
+    const int f0 = c0 - 2 * ov;
+    // frames_irfft starts with a barrier and ends with one
+    frames_irfft(
+        min(R + 2 * ov, T - f0), ov, n, fs, fs.win, a.teams,
+        [&](int r, int k, float& re, float& im) {
+            const int f = f0 + r;
+            if (f < 0) {  // the first block's leading group: no frame
+                re = 0.0f;
+                im = 0.0f;
+                return;
+            }
+            const size_t o = bofs + (size_t)f * F + k;
+            const float m = __ldg(a.mag + o);
+            float sn, cs;
+            sincosf(__ldg(a.phases + o), &sn, &cs);
+            re = __fmul_rn(m, cs);
+            im = __fmul_rn(m, sn);
+        },
+        [&](int r, int i, float v) {
+            const int f = f0 + r;
+            const int pos = (f - c0) * hop + i;
+            if (f >= 0 && pos >= 0 && pos < R * hop) samples[pos] = __fadd_rn(samples[pos], v);
+        });
+    float* out = a.out + (size_t)b * n_chunks * hop + (size_t)c0 * hop;
+    const int n_out = min(R, n_chunks - c0) * hop;
+    for (int i = threadIdx.x; i < n_out; i += kThreads) out[i] = samples[i];
+}
+
 template <typename K>
 static cudaError_t pghi_allow_smem(K kernel, size_t bytes) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -624,6 +708,10 @@ extern "C" {
 
 long long att_pghi_synth_smem_bytes(int rows, int overlap, int Kp) {
     return (long long)att::pghi_synth_smem_bytes(rows, overlap, Kp);
+}
+
+long long att_pghi_synth_fft_smem_bytes(int rows, int hop, int n_fft, int teams) {
+    return (long long)(att::pghi_synth_fft_smem_floats(rows, hop, n_fft, teams) * sizeof(float));
 }
 
 // mag, angles, phases: (B, T, F) float32; abstol: (B,).  bpt bins per thread
@@ -753,6 +841,42 @@ int att_pghi_synthesize(const float* mag, const float* phases, const float* basi
     else if (rows == 16) ATT_LAUNCH_SYNTH(2);
     else ATT_LAUNCH_SYNTH(1);
 #undef ATT_LAUNCH_SYNTH
+    return (int)cudaGetLastError();
+}
+
+// K's synthesis on the FFT route.  mag, phases: (B, T, F) float32 with F =
+// n_fft / 2 + 1, n_fft = overlap * hop a power of two from 64 to 4096; wsyn
+// (n_fft,) the synthesis window / n_fft; fft_tw (2, n_fft) = (cos, -sin)(2 pi
+// j / n_fft); out: (B, (T + overlap - 1) * hop), every sample written.  rows
+// output chunks per block, a multiple of 2 overlap; 1 <= teams <= 4096 /
+// n_fft FFTs side by side.  Returns a cudaError_t.
+int att_pghi_synthesize_fft(const float* mag, const float* phases, const float* wsyn,
+                            const float* fft_tw, float* out, long long B, int T, int F, int hop,
+                            int overlap, int rows, int teams, void* stream) {
+    using namespace att;
+    const int n_fft = overlap * hop;
+    if (B < 1 || T < 1 || overlap < 2 || !fft_covers(n_fft) || F != n_fft / 2 + 1 || rows < 1 ||
+        rows % (2 * overlap) != 0 || teams < 1 || teams > fft_max_teams(n_fft)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    SynthFftArgs a;
+    a.mag = mag;
+    a.phases = phases;
+    a.wsyn = wsyn;
+    a.fft_tw = fft_tw;
+    a.out = out;
+    a.T = T;
+    a.F = F;
+    a.hop = hop;
+    a.overlap = overlap;
+    a.rows = rows;
+    a.teams = teams;
+    a.n_tiles = (T + overlap - 1 + rows - 1) / rows;
+    const size_t smem = pghi_synth_fft_smem_floats(rows, hop, n_fft, teams) * sizeof(float);
+    cudaError_t err = pghi_allow_smem(pghi_synthesize_fft_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    pghi_synthesize_fft_kernel<<<dim3((unsigned)(B * a.n_tiles)), kThreads, smem,
+                                 (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }
 

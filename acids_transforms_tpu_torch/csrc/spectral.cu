@@ -8,12 +8,12 @@
 //   melspec_forward_kernel<.., kFrontFft / kFrontProduct>  <- _forward_kernel  (full-K: any
 //                                      window, taps=None)
 //   melspec_stats_kernel<.., kFrontFft / kFrontProduct>    <- _stats_kernel    (full-K)
-//   repr_forward_kernel<.., false> <- _repr_kernel_factored (via _repr_call /
+//   repr_forward_kernel<.., kFrontFactored> <- _repr_kernel_factored (via _repr_call /
 //                                     fused_spectral_repr), epilogue _repr_channels
-//   repr_forward_kernel<.., true>  <- _repr_kernel          (full-K)
-//   repr_stats_kernel<.., false>   <- _repr_stats_kernel_factored (via
+//   repr_forward_kernel<.., kFrontFft / kFrontProduct>  <- _repr_kernel  (full-K)
+//   repr_stats_kernel<.., kFrontFactored>   <- _repr_stats_kernel_factored (via
 //                                     _repr_stats_call / fused_repr_stats)
-//   repr_stats_kernel<.., true>    <- _repr_stats_kernel    (full-K)
+//   repr_stats_kernel<.., kFrontFft / kFrontProduct>    <- _repr_stats_kernel  (full-K)
 //   stats_reduce_kernel     <- the accumulation the TPU kernel carried across its
 //                              sequential grid (_stats_update)
 //   melspec_stage_kernel<kStage> <- the stage-prefix kernel of
@@ -24,11 +24,11 @@
 // The full-K kernels differ from the factored ones only before the magnitude
 // (one epilogue, three front ends): frame t is the slice row[t hop, t hop +
 // n_fft) of the same padded rows.  Where n_fft is a power of two from 64 to
-// 4096 (fft_smem.cuh:fft_covers) the melspec kernels E and F take the FFT
-// route, kFrontFft: fft_smem.cuh:frames_rfft over the block's frames (the
-// window and the twiddle table staged once a block, no basis read), |X| or
-// |X|^2 into the magnitudes.  Otherwise, and in the representation kernels,
-// the product route, kFrontProduct: a window-folded basis of n_fft x F (cos |
+// 4096 (fft_smem.cuh:fft_covers) the full-K kernels (E, F, G, H) take the
+// FFT route, kFrontFft: fft_smem.cuh:frames_rfft over the block's frames (the
+// window and the twiddle table staged once a block, no basis read), its
+// epilogue handed every bin of a frame pair.  Otherwise the product route,
+// kFrontProduct: a window-folded basis of n_fft x F (cos |
 // -sin), all F bins in one fp32 product; the contraction is n_fft long
 // instead of hop, so it does `overlap` times the multiply-adds of the
 // factored kernels.  That basis (4.2 MB at n_fft 1024) stays in L2 and is
@@ -75,6 +75,23 @@
 // which would flip pi to -pi).  The fit statistics of both channels are
 // reduced per column tile from shared memory, with channel 1 the non-mel
 // contrasted magnitude (what Magnitude.fit fits on).
+//
+// The representation kernels' FFT route (repr_forward_fft, repr_stats_fft)
+// rearranges that epilogue around frames_rfft, which hands over every bin of
+// a frame pair instead of one column tile of all frames; what it computes is
+// unchanged.  Each bin is formed in the emit (the nyquist pin, the angle's
+// rules); without a mel bank channel 1 goes straight to device memory, with
+// one it waits in shared memory for the banded product (emit_mel_rows:
+// emit_tile's sums, eight rows at a time); the IF's angles of the tile and
+// its halo frame wait for a pass after the FFTs, and the statistics kernel
+// folds both channels per column in frame order from shared memory.  The
+// halo: frames_rfft pairs frames (2j, 2j + 1) of the block's numbering, so a
+// block with the IF starts at frame t0 - 2 (t0 is even), two frames before
+// its tile: the halo frame t0 - 1 then goes through the FFT with its partner
+// t0 - 2 as in every other block and in the plain version (frames_rfft_
+// reference over the whole clip), and rounds alike.  The rows carry two
+// leading zero chunks for it.  Every product and sum of the magnitude is
+// rounded on its own (__fmul_rn / __fadd_rn), as the plain version has it.
 //
 // Arithmetic is fp32 FMA with fp32 accumulation: no tensor cores yet.  What
 // keeps it from that ceiling: one block of 8 warps per SM (the magnitudes take
@@ -423,7 +440,35 @@ struct ReprArgs {
     float* out1;          // (B, T, F)
     float* out2;          // (B, T, F)
     float* partials;      // statistics: (n_blocks, 8, F)
+    FftArgs fft;          // FFT route: the window, the twiddle table, FFTs side by side
 };
+
+// Frames the FFT route computes before a block's tile: the IF's halo frame
+// t0 - 1 and its partner t0 - 2.
+__host__ __device__ inline int repr_fft_halo(int second) { return second == kSecondIF ? 2 : 0; }
+
+// Rows of F floats the FFT route keeps in shared memory: channel 1 (for the
+// mel product: a multiple of 8 rows, which emit_mel_rows reads; the
+// statistics kernel: the tile) and channel 2 (the IF's angles of the halo
+// frame and the tile; the statistics kernel: else channel 2 of the tile).
+__host__ __device__ inline void repr_fft_rows(int tile_t, int second, bool stats, bool mel, int* c1,
+                                              int* c2) {
+    if (stats) {
+        *c1 = tile_t;
+        *c2 = second == kSecondIF ? tile_t + 1 : tile_t;
+    } else {
+        *c1 = mel && second != kSecondImag ? (tile_t + 7) / 8 * 8 : 0;
+        *c2 = second == kSecondIF ? tile_t + 1 : 0;
+    }
+}
+
+__host__ __device__ inline size_t repr_fft_smem_floats(int tile_t, int hop, int overlap, int F,
+                                                       int teams, bool stats, int second, bool mel) {
+    int c1, c2;
+    repr_fft_rows(tile_t, second, stats, mel, &c1, &c2);
+    return (size_t)(tile_t + repr_fft_halo(second) + overlap - 1) * hop + (size_t)(c1 + c2) * F +
+           fft_smem_floats(overlap * hop, teams);
+}
 
 // The unwrapped difference of two consecutive phases is their principal
 // difference (unwrap's correction, evaluated frame-locally): |d| < pi as is,
@@ -457,7 +502,7 @@ __device__ __forceinline__ float if_value(float ph, float ph_prev, int f, int T,
 // column tile `per_tile(k0, useful, n_frames)` with the spectrum in w.  With
 // the IF the block computes n_frames = tile_t + 1 frames starting one before
 // its tile (row 0 is the halo frame); otherwise its tile_t frames.
-template <bool kInt16, bool kFullK, typename PerTile>
+template <bool kInt16, int kFront, typename PerTile>
 __device__ void repr_front(const ReprArgs& a, long long b, int tile, int halo, float* xs,
                            AnaWork w, PerTile per_tile) {
     const int n_frames = a.tile_t + halo;
@@ -468,7 +513,7 @@ __device__ void repr_front(const ReprArgs& a, long long b, int tile, int halo, f
     const int useful = kColTile - 2 * P;
     const int n_ct = n_col_tiles(a.F, P);
     for (int ct = 0; ct < n_ct; ++ct) {
-        if (kFullK) {
+        if (kFront == kFrontProduct) {
             analysis_tile(xs, n_frames, n_frames, a.hop, a.overlap, a.F, ct, P, a.bcos, a.bsin,
                           a.twr, a.twi, w, a.overlap * a.hop);
         } else {
@@ -496,147 +541,317 @@ __device__ __forceinline__ float repr_angle(float re, float im, int k, int F) {
     return atan2f(im == 0.0f ? 0.0f : im, re);
 }
 
-template <bool kInt16, bool kFullK>
-__global__ void __launch_bounds__(kThreads) repr_forward_kernel(ReprArgs a) {
-    extern __shared__ __align__(16) float smem[];
-    const int halo = a.second == kSecondIF ? 1 : 0;
-    const int F = a.F, T = a.T;
-    float* xs = smem;
-    float* mag_s = xs + (size_t)(a.tile_t + a.overlap) * a.hop;
-    AnaWork w = carve_ana(mag_s + (size_t)a.tile_t * F, a.tile_t + 1);
-    float* ph_s = w.Cre;  // phases of a column tile, free once X is combined
-
-    const long long blk = blockIdx.x;
-    const long long b = blk / a.n_tiles;
-    const int tile = (int)(blk - b * a.n_tiles);
-    const int t_base = tile * a.tile_t;
-    const float off1 = a.aff[0], s1 = a.aff[1], off2 = a.aff[2], s2 = a.aff[3];
-    const size_t row_b = (size_t)b * T;
-
-    repr_front<kInt16, kFullK>(a, b, tile, halo, xs, w, [&](int k0, int useful, int n_frames) {
-        for (int idx = threadIdx.x; idx < n_frames * useful; idx += kThreads) {
-            const int t = idx / useful;
-            const int cu = idx - t * useful;
-            const int k = k0 + cu;
-            const int f = t_base + t - halo;  // global frame of row t
-            if (k >= F) continue;
-            float re, im;
-            repr_bin(w, a.taps, t, cu, k, F, &re, &im);
-            if (a.second == kSecondImag) {
-                if (f < T) {
-                    a.out1[(row_b + f) * F + k] = (re - off1) / s1;
-                    a.out2[(row_b + f) * F + k] = (im - off2) / s2;
+// Channel 1 of the FFT route through the mel bank: emit_tile's sums (over
+// the bank's nonzero rows [lo, hi) in order, fmaf), contrast and affine, for
+// the block's t_valid rows, eight at a time (c1 holds a multiple of 8 rows;
+// rows past t_valid are read and never stored).
+__device__ void emit_mel_rows(const float* c1, long long b, int t_base, int t_valid, int F, int T,
+                              int contrast, const float* __restrict__ mel_bank,
+                              const int* __restrict__ mel_lo, const int* __restrict__ mel_hi,
+                              float offset, float scale, float* __restrict__ out) {
+    for (int m = threadIdx.x; m < F; m += kThreads) {
+        const int lo = mel_lo[m], hi = mel_hi[m];
+        for (int t0 = 0; t0 < t_valid; t0 += 8) {
+            float acc[8];
+#pragma unroll
+            for (int t = 0; t < 8; ++t) acc[t] = 0.0f;
+            for (int f = lo; f < hi; ++f) {
+                const float bv = __ldg(mel_bank + (size_t)f * F + m);
+#pragma unroll
+                for (int t = 0; t < 8; ++t) acc[t] = fmaf(c1[(t0 + t) * F + f], bv, acc[t]);
+            }
+#pragma unroll
+            for (int t = 0; t < 8; ++t) {
+                if (t0 + t < t_valid) {
+                    out[((size_t)b * T + (t_base + t0 + t)) * F + m] =
+                        (contrast_of(acc[t], contrast) - offset) / scale;
                 }
-                continue;
-            }
-            if (t >= halo) mag_s[(t - halo) * F + k] = sqrtf(re * re + im * im);
-            const float ph = repr_angle(re, im, k, F);
-            if (a.second == kSecondPhase) {
-                if (f < T) a.out2[(row_b + f) * F + k] = (ph - off2) / s2;
-            } else {
-                ph_s[t * kColTile + cu] = ph;
             }
         }
-        if (a.second != kSecondIF) return;
-        __syncthreads();
-        for (int idx = threadIdx.x; idx < a.tile_t * useful; idx += kThreads) {
-            const int t = idx / useful;  // output row: halo row t + 1
-            const int cu = idx - t * useful;
-            const int k = k0 + cu;
-            const int f = t_base + t;
-            if (k >= F || f >= T) continue;
-            const float v = if_value(ph_s[(t + 1) * kColTile + cu], ph_s[t * kColTile + cu], f, T,
-                                     a.weighted != 0);
-            a.out2[(row_b + f) * F + k] = (v - off2) / s2;
-        }
-        // analysis_tile begins with a barrier before the work area is reused
-    });
-    if (a.second == kSecondImag) return;
-    __syncthreads();
-    switch (a.tile_t) {
-        case 32:
-            emit_tile<32, false>(mag_s, b, t_base, F, T, a.contrast, a.mel_bank, a.mel_lo, a.mel_hi,
-                                 F, off1, s1, a.out1);
-            break;
-        case 16:
-            emit_tile<16, false>(mag_s, b, t_base, F, T, a.contrast, a.mel_bank, a.mel_lo, a.mel_hi,
-                                 F, off1, s1, a.out1);
-            break;
-        default:
-            emit_tile<8, false>(mag_s, b, t_base, F, T, a.contrast, a.mel_bank, a.mel_lo, a.mel_hi,
-                                F, off1, s1, a.out1);
     }
 }
 
-template <bool kInt16, bool kFullK>
-__global__ void __launch_bounds__(kThreads) repr_stats_kernel(ReprArgs a) {
-    extern __shared__ __align__(16) float smem[];
-    const int halo = a.second == kSecondIF ? 1 : 0;
-    const int F = a.F, T = a.T;
-    float* xs = smem;
-    AnaWork w = carve_ana(xs + (size_t)(a.tile_t + a.overlap) * a.hop, a.tile_t + 1);
-    // per column tile, rows as the frame rows: ch1 in Cim; ch2 in Cre (the
-    // phase, or Im), for the IF in Xre once X has been read
-    float* c1_s = w.Cim;
-    float* ph_s = w.Cre;
+// The FFT route's front end: the window and the twiddles staged, the block's
+// rows loaded (frame f of the clip starts at row f + halo: `halo` leading
+// zero chunks), then frames_rfft over the halo frames and the tile's first
+// t_valid frames, emit(t, k, re, im) with the tile row t (-2 and -1: the
+// IF's halo) and the nyquist bin's imaginary part pinned to 0; the FFT's
+// area starts at fft_area.  Ends with a barrier.
+template <bool kInt16, typename Emit>
+__device__ void repr_fft_front(const ReprArgs& a, long long b, int t_base, int t_valid, float* xs,
+                               float* fft_area, Emit emit) {
+    const int hf = repr_fft_halo(a.second);
+    const int n = a.overlap * a.hop;
+    const int n_frames = hf + t_valid;
+    const FftSmem fs = carve_fft(fft_area, n);
+    fft_stage(a.fft.win, a.fft.tw, fs, n);  // load_rows' barrier covers it
+    load_rows<kInt16>(a.x_rows, (size_t)b * a.n_rows_total + (size_t)t_base,
+                      n_frames + a.overlap - 1, a.hop, xs);
+    const int F = a.F;
+    frames_rfft(xs, n_frames, a.hop, n, fs, a.fft.teams, [&](int r, int k, float re, float im) {
+        emit(r - hf, k, re, k == F - 1 ? 0.0f : im);
+    });
+}
 
-    const long long blk = blockIdx.x;
-    const long long b = blk / a.n_tiles;
-    const int tile = (int)(blk - b * a.n_tiles);
+// Kernel G on the FFT route (see the notes at the top).
+template <bool kInt16>
+__device__ void repr_forward_fft(const ReprArgs& a, long long b, int tile, float* smem) {
+    const int F = a.F, T = a.T, second = a.second;
+    const bool mel = a.mel_bank != nullptr && second != kSecondImag;
+    int c1r, c2r;
+    repr_fft_rows(a.tile_t, second, false, mel, &c1r, &c2r);
+    const int t_base = tile * a.tile_t;
+    const int t_valid = min(a.tile_t, T - t_base);
+    float* xs = smem;
+    float* c1_s = xs + (size_t)(a.tile_t + repr_fft_halo(second) + a.overlap - 1) * a.hop;
+    float* ph_s = c1_s + (size_t)c1r * F;  // the IF: row t + 1 holds tile row t's angles
+    const float off1 = a.aff[0], s1 = a.aff[1], off2 = a.aff[2], s2 = a.aff[3];
+    const size_t row0 = (size_t)b * T + t_base;
+    repr_fft_front<kInt16>(a, b, t_base, t_valid, xs, ph_s + (size_t)c2r * F,
+                           [&](int t, int k, float re, float im) {
+        if (second == kSecondImag) {
+            a.out1[(row0 + t) * F + k] = (re - off1) / s1;
+            a.out2[(row0 + t) * F + k] = (im - off2) / s2;
+            return;
+        }
+        if (t < -1) return;  // the halo's partner
+        const float ph = repr_angle(re, im, k, F);
+        if (second == kSecondIF) ph_s[(t + 1) * F + k] = ph;
+        if (t < 0) return;
+        const float mg = sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im)));
+        if (mel) {
+            c1_s[t * F + k] = mg;
+        } else {
+            a.out1[(row0 + t) * F + k] = (contrast_of(mg, a.contrast) - off1) / s1;
+        }
+        if (second == kSecondPhase) a.out2[(row0 + t) * F + k] = (ph - off2) / s2;
+    });  // ends with a barrier
+    if (second == kSecondIF) {
+        for (int idx = threadIdx.x; idx < t_valid * F; idx += kThreads) {
+            const int t = idx / F;
+            const int k = idx - t * F;
+            const float v = if_value(ph_s[(t + 1) * F + k], ph_s[t * F + k], t_base + t, T,
+                                     a.weighted != 0);
+            a.out2[(row0 + t) * F + k] = (v - off2) / s2;
+        }
+    }
+    if (mel) {
+        emit_mel_rows(c1_s, b, t_base, t_valid, F, T, a.contrast, a.mel_bank, a.mel_lo, a.mel_hi,
+                      off1, s1, a.out1);
+    }
+}
+
+// Kernel H on the FFT route: both channels of the tile in shared memory, then
+// each column folded over the frames in frame order (as the product route
+// folds), into the block's partials.
+template <bool kInt16>
+__device__ void repr_stats_fft(const ReprArgs& a, long long blk, long long b, int tile, float* smem) {
+    const int F = a.F, T = a.T, second = a.second;
+    int c1r, c2r;
+    repr_fft_rows(a.tile_t, second, true, false, &c1r, &c2r);
     const int t_base = tile * a.tile_t;
     const int t_valid = min(a.tile_t, T - t_base);  // frames past T are tile padding
-    float* dst = a.partials + (size_t)blk * 8 * F;
-
-    repr_front<kInt16, kFullK>(a, b, tile, halo, xs, w, [&](int k0, int useful, int n_frames) {
-        for (int idx = threadIdx.x; idx < n_frames * useful; idx += kThreads) {
-            const int t = idx / useful;
-            const int cu = idx - t * useful;
-            const int k = k0 + cu;
-            if (k >= F) continue;
-            float re, im;
-            repr_bin(w, a.taps, t, cu, k, F, &re, &im);
-            if (a.second == kSecondImag) {
-                c1_s[t * kColTile + cu] = re;
-                ph_s[t * kColTile + cu] = im;
-            } else {
-                c1_s[t * kColTile + cu] = contrast_of(sqrtf(re * re + im * im), a.contrast);
-                ph_s[t * kColTile + cu] = repr_angle(re, im, k, F);
-            }
+    const bool is_if = second == kSecondIF;
+    float* xs = smem;
+    float* c1_s = xs + (size_t)(a.tile_t + repr_fft_halo(second) + a.overlap - 1) * a.hop;
+    float* c2_s = c1_s + (size_t)c1r * F;  // the IF: row t + 1 holds tile row t's angle
+    repr_fft_front<kInt16>(a, b, t_base, t_valid, xs, c2_s + (size_t)c2r * F,
+                           [&](int t, int k, float re, float im) {
+        if (second == kSecondImag) {
+            c1_s[t * F + k] = re;
+            c2_s[t * F + k] = im;
+            return;
         }
-        __syncthreads();
-        float* c2_s = ph_s;
-        if (a.second == kSecondIF) {
-            c2_s = w.Xre;
-            for (int idx = threadIdx.x; idx < t_valid * useful; idx += kThreads) {
+        if (t < -1) return;  // the halo's partner
+        const float ph = repr_angle(re, im, k, F);
+        c2_s[(t + (is_if ? 1 : 0)) * F + k] = ph;
+        if (t < 0) return;
+        c1_s[t * F + k] = contrast_of(sqrtf(__fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im))),
+                                      a.contrast);
+    });  // ends with a barrier
+    float* dst = a.partials + (size_t)blk * 8 * F;
+    for (int c = threadIdx.x; c < 2 * F; c += kThreads) {
+        const int ch = c >= F ? 1 : 0;
+        const int k = c - ch * F;
+        float s = 0.0f, ss = 0.0f, mn = INFINITY, mx = -INFINITY;
+        for (int t = 0; t < t_valid; ++t) {
+            float v;
+            if (ch == 0) {
+                v = c1_s[t * F + k];
+            } else if (is_if) {
+                v = if_value(c2_s[(t + 1) * F + k], c2_s[t * F + k], t_base + t, T, a.weighted != 0);
+            } else {
+                v = c2_s[t * F + k];
+            }
+            s += v;
+            ss = fmaf(v, v, ss);
+            mn = fminf(mn, v);
+            mx = fmaxf(mx, v);
+        }
+        float* d = dst + (size_t)ch * 4 * F;
+        d[k] = s;
+        d[F + k] = ss;
+        d[2 * F + k] = mn;
+        d[3 * F + k] = mx;
+    }
+}
+
+// On the FFT route at most 128 registers a thread, as melspec_forward_kernel's.
+template <bool kInt16, int kFront>
+__global__ void __launch_bounds__(kThreads, kFront == kFrontFft ? 2 : 1)
+repr_forward_kernel(ReprArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    if constexpr (kFront == kFrontFft) {
+        const long long blk = blockIdx.x;
+        const long long b = blk / a.n_tiles;
+        repr_forward_fft<kInt16>(a, b, (int)(blk - b * a.n_tiles), smem);
+    } else {
+        const int halo = a.second == kSecondIF ? 1 : 0;
+        const int F = a.F, T = a.T;
+        float* xs = smem;
+        float* mag_s = xs + (size_t)(a.tile_t + a.overlap) * a.hop;
+        AnaWork w = carve_ana(mag_s + (size_t)a.tile_t * F, a.tile_t + 1);
+        float* ph_s = w.Cre;  // phases of a column tile, free once X is combined
+
+        const long long blk = blockIdx.x;
+        const long long b = blk / a.n_tiles;
+        const int tile = (int)(blk - b * a.n_tiles);
+        const int t_base = tile * a.tile_t;
+        const float off1 = a.aff[0], s1 = a.aff[1], off2 = a.aff[2], s2 = a.aff[3];
+        const size_t row_b = (size_t)b * T;
+
+        repr_front<kInt16, kFront>(a, b, tile, halo, xs, w, [&](int k0, int useful, int n_frames) {
+            for (int idx = threadIdx.x; idx < n_frames * useful; idx += kThreads) {
                 const int t = idx / useful;
                 const int cu = idx - t * useful;
-                c2_s[(t + 1) * kColTile + cu] =
-                    if_value(ph_s[(t + 1) * kColTile + cu], ph_s[t * kColTile + cu], t_base + t, T,
-                             a.weighted != 0);
+                const int k = k0 + cu;
+                const int f = t_base + t - halo;  // global frame of row t
+                if (k >= F) continue;
+                float re, im;
+                repr_bin(w, a.taps, t, cu, k, F, &re, &im);
+                if (a.second == kSecondImag) {
+                    if (f < T) {
+                        a.out1[(row_b + f) * F + k] = (re - off1) / s1;
+                        a.out2[(row_b + f) * F + k] = (im - off2) / s2;
+                    }
+                    continue;
+                }
+                if (t >= halo) mag_s[(t - halo) * F + k] = sqrtf(re * re + im * im);
+                const float ph = repr_angle(re, im, k, F);
+                if (a.second == kSecondPhase) {
+                    if (f < T) a.out2[(row_b + f) * F + k] = (ph - off2) / s2;
+                } else {
+                    ph_s[t * kColTile + cu] = ph;
+                }
+            }
+            if (a.second != kSecondIF) return;
+            __syncthreads();
+            for (int idx = threadIdx.x; idx < a.tile_t * useful; idx += kThreads) {
+                const int t = idx / useful;  // output row: halo row t + 1
+                const int cu = idx - t * useful;
+                const int k = k0 + cu;
+                const int f = t_base + t;
+                if (k >= F || f >= T) continue;
+                const float v = if_value(ph_s[(t + 1) * kColTile + cu], ph_s[t * kColTile + cu], f, T,
+                                         a.weighted != 0);
+                a.out2[(row_b + f) * F + k] = (v - off2) / s2;
+            }
+            // analysis_tile begins with a barrier before the work area is reused
+        });
+        if (a.second == kSecondImag) return;
+        __syncthreads();
+        switch (a.tile_t) {
+            case 32:
+                emit_tile<32, false>(mag_s, b, t_base, F, T, a.contrast, a.mel_bank, a.mel_lo, a.mel_hi,
+                                     F, off1, s1, a.out1);
+                break;
+            case 16:
+                emit_tile<16, false>(mag_s, b, t_base, F, T, a.contrast, a.mel_bank, a.mel_lo, a.mel_hi,
+                                     F, off1, s1, a.out1);
+                break;
+            default:
+                emit_tile<8, false>(mag_s, b, t_base, F, T, a.contrast, a.mel_bank, a.mel_lo, a.mel_hi,
+                                    F, off1, s1, a.out1);
+        }
+    }
+}
+
+template <bool kInt16, int kFront>
+__global__ void __launch_bounds__(kThreads, kFront == kFrontFft ? 2 : 1)
+repr_stats_kernel(ReprArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    if constexpr (kFront == kFrontFft) {
+        const long long blk = blockIdx.x;
+        const long long b = blk / a.n_tiles;
+        repr_stats_fft<kInt16>(a, blk, b, (int)(blk - b * a.n_tiles), smem);
+    } else {
+        const int halo = a.second == kSecondIF ? 1 : 0;
+        const int F = a.F, T = a.T;
+        float* xs = smem;
+        AnaWork w = carve_ana(xs + (size_t)(a.tile_t + a.overlap) * a.hop, a.tile_t + 1);
+        // per column tile, rows as the frame rows: ch1 in Cim; ch2 in Cre (the
+        // phase, or Im), for the IF in Xre once X has been read
+        float* c1_s = w.Cim;
+        float* ph_s = w.Cre;
+
+        const long long blk = blockIdx.x;
+        const long long b = blk / a.n_tiles;
+        const int tile = (int)(blk - b * a.n_tiles);
+        const int t_base = tile * a.tile_t;
+        const int t_valid = min(a.tile_t, T - t_base);  // frames past T are tile padding
+        float* dst = a.partials + (size_t)blk * 8 * F;
+
+        repr_front<kInt16, kFront>(a, b, tile, halo, xs, w, [&](int k0, int useful, int n_frames) {
+            for (int idx = threadIdx.x; idx < n_frames * useful; idx += kThreads) {
+                const int t = idx / useful;
+                const int cu = idx - t * useful;
+                const int k = k0 + cu;
+                if (k >= F) continue;
+                float re, im;
+                repr_bin(w, a.taps, t, cu, k, F, &re, &im);
+                if (a.second == kSecondImag) {
+                    c1_s[t * kColTile + cu] = re;
+                    ph_s[t * kColTile + cu] = im;
+                } else {
+                    c1_s[t * kColTile + cu] = contrast_of(sqrtf(re * re + im * im), a.contrast);
+                    ph_s[t * kColTile + cu] = repr_angle(re, im, k, F);
+                }
             }
             __syncthreads();
-        }
-        // threads 0..127 fold channel 1 of a column, 128..255 channel 2
-        const int c = threadIdx.x & (kColTile - 1);
-        const int ch = threadIdx.x / kColTile;
-        const int k = k0 + c;
-        if (c < useful && k < F) {
-            const float* col = (ch == 0 ? c1_s : c2_s) + halo * kColTile + c;
-            float s = 0.0f, ss = 0.0f, mn = INFINITY, mx = -INFINITY;
-            for (int t = 0; t < t_valid; ++t) {
-                const float v = col[t * kColTile];
-                s += v;
-                ss = fmaf(v, v, ss);
-                mn = fminf(mn, v);
-                mx = fmaxf(mx, v);
+            float* c2_s = ph_s;
+            if (a.second == kSecondIF) {
+                c2_s = w.Xre;
+                for (int idx = threadIdx.x; idx < t_valid * useful; idx += kThreads) {
+                    const int t = idx / useful;
+                    const int cu = idx - t * useful;
+                    c2_s[(t + 1) * kColTile + cu] =
+                        if_value(ph_s[(t + 1) * kColTile + cu], ph_s[t * kColTile + cu], t_base + t, T,
+                                 a.weighted != 0);
+                }
+                __syncthreads();
             }
-            float* d = dst + (size_t)ch * 4 * F;
-            d[k] = s;
-            d[F + k] = ss;
-            d[2 * F + k] = mn;
-            d[3 * F + k] = mx;
-        }
-    });
+            // threads 0..127 fold channel 1 of a column, 128..255 channel 2
+            const int c = threadIdx.x & (kColTile - 1);
+            const int ch = threadIdx.x / kColTile;
+            const int k = k0 + c;
+            if (c < useful && k < F) {
+                const float* col = (ch == 0 ? c1_s : c2_s) + halo * kColTile + c;
+                float s = 0.0f, ss = 0.0f, mn = INFINITY, mx = -INFINITY;
+                for (int t = 0; t < t_valid; ++t) {
+                    const float v = col[t * kColTile];
+                    s += v;
+                    ss = fmaf(v, v, ss);
+                    mn = fminf(mn, v);
+                    mx = fmaxf(mx, v);
+                }
+                float* d = dst + (size_t)ch * 4 * F;
+                d[k] = s;
+                d[F + k] = ss;
+                d[2 * F + k] = mn;
+                d[3 * F + k] = mx;
+            }
+        });
+    }
 }
 
 // partials (n_blocks, n_stats, F) float -> stats (n_stats, F) double, in a
@@ -890,26 +1105,48 @@ long long att_repr_smem_bytes(int tile_t, int hop, int overlap, int F, int stats
     return (long long)att::repr_smem_bytes(tile_t, hop, overlap, F, stats != 0);
 }
 
+// The same for the FFT route with `teams` FFTs side by side, channel-2
+// selector `second` and a mel bank or not.
+long long att_repr_fft_smem_bytes(int tile_t, int hop, int overlap, int F, int teams, int stats,
+                                  int second, int mel) {
+    return (long long)(att::repr_fft_smem_floats(tile_t, hop, overlap, F, teams, stats != 0, second,
+                                                 mel != 0) *
+                       sizeof(float));
+}
+
 // Kernels G (stats = 0) and H (stats = 1).  x_rows: (B, n_rows_total, hop)
-// float32 or int16 with one leading zero chunk, n_rows_total >= n_tiles *
-// tile_t + overlap; tile_t one of 32, 16, 8.  P >= 0: factored front end
-// (chunk basis, twiddles, taps); P < 0: full-K (window-folded basis).
-// second: 0 phase, 1 IF, 2 imag.  G: aff = [off1, scale1, off2, scale2] on
-// the device, out1 / out2: (B, T, F) float32; mel_bank (F, F) or null.  H:
-// partials (B * n_tiles, 8, F) float32 scratch, stats (8, F) float64 out
-// (rows: sum, sumsq, min, max of channel 1, then of channel 2).  Returns a
-// cudaError_t.
+// float32 or int16.  P >= 0: factored front end (chunk basis, twiddles,
+// taps); P < 0: full-K, and fft_teams selects its route.  fft_teams == 0: the
+// product route (bcos / bsin the window-folded (n_fft, F) basis).  On these
+// two x_rows has one leading zero chunk, n_rows_total >= n_tiles * tile_t +
+// overlap, tile_t one of 32, 16, 8, hop a multiple of 32.  fft_teams > 0: the
+// FFT route (n_fft = overlap hop a power of two from 64 to 4096, F = n_fft / 2
+// + 1; window (n_fft,), fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft),
+// fft_teams <= 4096 / n_fft FFTs side by side; bcos / bsin / twr / twi not
+// read); x_rows has 2 leading zero chunks with the IF (second = 1), none
+// otherwise, n_rows_total >= n_tiles * tile_t + that + overlap - 1; tile_t
+// one of 32, 16, 8, 4, 2.  second: 0 phase, 1 IF, 2 imag.  G: aff = [off1,
+// scale1, off2, scale2] on the device, out1 / out2: (B, T, F) float32;
+// mel_bank (F, F) or null.  H: partials (B * n_tiles, 8, F) float32 scratch,
+// stats (8, F) float64 out (rows: sum, sumsq, min, max of channel 1, then of
+// channel 2).  Returns a cudaError_t.
 int att_repr(int stats_mode, const void* x_rows, int x_int16, long long B, int n_tiles, int tile_t,
              int n_rows_total, int hop, int overlap, int F, int T, const float* bcos,
              const float* bsin, const float* twr, const float* twi, const float* taps_host, int P,
              int second, int weighted, int contrast, const float* mel_bank, const int* mel_lo,
              const int* mel_hi, const float* aff, float* out1, float* out2, float* partials,
-             double* stats, void* stream) {
+             double* stats, const float* window, const float* fft_tw, int fft_teams,
+             void* stream) {
     using namespace att;
     const bool fullk = P < 0;
-    if (P >= kMaxTaps || overlap < 1 || tile_t + overlap > kMaxRows ||
-        (tile_t != 32 && tile_t != 16 && tile_t != 8) || hop % kKC != 0 || second < 0 ||
-        second > 2) {
+    const bool fft = fft_teams > 0;
+    const int n_fft = overlap * hop;
+    if (P >= kMaxTaps || overlap < 1 || second < 0 || second > 2 ||
+        (fft && (!fullk || !fft_covers(n_fft) || F != n_fft / 2 + 1 ||
+                 fft_teams > fft_max_teams(n_fft) ||
+                 (tile_t != 32 && tile_t != 16 && tile_t != 8 && tile_t != 4 && tile_t != 2))) ||
+        (!fft && (tile_t + overlap > kMaxRows || (tile_t != 32 && tile_t != 16 && tile_t != 8) ||
+                  hop % kKC != 0))) {
         return (int)cudaErrorInvalidValue;
     }
     ReprArgs a;
@@ -921,7 +1158,10 @@ int att_repr(int stats_mode, const void* x_rows, int x_int16, long long B, int n
     a.second = second; a.weighted = weighted; a.contrast = contrast;
     a.mel_bank = mel_bank; a.mel_lo = mel_lo; a.mel_hi = mel_hi; a.aff = aff;
     a.out1 = out1; a.out2 = out2; a.partials = partials;
-    const size_t smem = repr_smem_bytes(tile_t, hop, overlap, F, stats_mode != 0);
+    a.fft = FftArgs{window, fft_tw, fft_teams};
+    const size_t smem = fft ? repr_fft_smem_floats(tile_t, hop, overlap, F, fft_teams, stats_mode != 0,
+                                                   second, mel_bank != nullptr) * sizeof(float)
+                            : repr_smem_bytes(tile_t, hop, overlap, F, stats_mode != 0);
     dim3 grid((unsigned)(B * n_tiles));
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
@@ -931,15 +1171,16 @@ int att_repr(int stats_mode, const void* x_rows, int x_int16, long long B, int n
         if (err != cudaSuccess) return (int)err;                                           \
         KERNEL<I16, FK><<<grid, kThreads, smem, s>>>(a);                                   \
     } while (0)
+#define ATT_LAUNCH_REPR_FR(KERNEL, I16)                                                    \
+    do {                                                                                   \
+        if (fft) ATT_LAUNCH_REPR(KERNEL, I16, kFrontFft);                                  \
+        else if (fullk) ATT_LAUNCH_REPR(KERNEL, I16, kFrontProduct);                       \
+        else ATT_LAUNCH_REPR(KERNEL, I16, kFrontFactored);                                 \
+    } while (0)
 #define ATT_LAUNCH_REPR_ALL(KERNEL)                                                        \
     do {                                                                                   \
-        if (x_int16) {                                                                     \
-            if (fullk) ATT_LAUNCH_REPR(KERNEL, true, true);                                \
-            else ATT_LAUNCH_REPR(KERNEL, true, false);                                     \
-        } else {                                                                           \
-            if (fullk) ATT_LAUNCH_REPR(KERNEL, false, true);                               \
-            else ATT_LAUNCH_REPR(KERNEL, false, false);                                    \
-        }                                                                                  \
+        if (x_int16) ATT_LAUNCH_REPR_FR(KERNEL, true);                                     \
+        else ATT_LAUNCH_REPR_FR(KERNEL, false);                                            \
     } while (0)
     if (stats_mode) {
         ATT_LAUNCH_REPR_ALL(repr_stats_kernel);
@@ -947,6 +1188,7 @@ int att_repr(int stats_mode, const void* x_rows, int x_int16, long long B, int n
         ATT_LAUNCH_REPR_ALL(repr_forward_kernel);
     }
 #undef ATT_LAUNCH_REPR_ALL
+#undef ATT_LAUNCH_REPR_FR
 #undef ATT_LAUNCH_REPR
     err = cudaGetLastError();
     if (err != cudaSuccess || !stats_mode) return (int)err;

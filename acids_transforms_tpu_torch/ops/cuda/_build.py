@@ -142,9 +142,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p,                      # bcos, bsin, twr, twi
         ctypes.POINTER(f), i, i, i, i,   # taps, P, second, weighted, contrast
         p, p, p, p,                      # mel_bank, mel_lo, mel_hi, aff
-        p, p, p, p, p,                   # out1, out2, partials, stats, stream
+        p, p, p, p,                      # out1, out2, partials, stats
+        p, p, i, p,                      # window, fft_tw, fft_teams, stream
     ]
     lib.att_repr.restype = i
+    lib.att_repr_fft_smem_bytes.argtypes = [i, i, i, i, i, i, i, i]
+    lib.att_repr_fft_smem_bytes.restype = ll
     lib.att_gl_smem_bytes.argtypes = [i, i, i, i]
     lib.att_gl_smem_bytes.restype = ll
     lib.att_gl_step.argtypes = [
@@ -196,6 +199,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         ll, i, i, i, i, i, i, p,         # B, T, F, hop, overlap, Kp, rows, stream
     ]
     lib.att_pghi_synthesize.restype = i
+    lib.att_pghi_synth_fft_smem_bytes.argtypes = [i, i, i, i]
+    lib.att_pghi_synth_fft_smem_bytes.restype = ll
+    lib.att_pghi_synthesize_fft.argtypes = [
+        p, p, p, p, p,                   # mag, phases, wsyn, fft_tw, out
+        ll, i, i, i, i, i, i, p,         # B, T, F, hop, overlap, rows, teams, stream
+    ]
+    lib.att_pghi_synthesize_fft.restype = i
     lib.att_session_encode_smem_bytes.argtypes = [i, i, i]
     lib.att_session_encode_smem_bytes.restype = ll
     lib.att_session_encode_fft_smem_bytes.argtypes = [i, i, i, i]

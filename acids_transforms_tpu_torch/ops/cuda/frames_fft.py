@@ -8,12 +8,12 @@ float32; ``frames_irfft`` the windowed inverse ``y_r[i] = wsyn[i] sum_k c_k
 Re(X_r[k] e^{2 pi i k i / n_fft})`` (``c_0 = c_{n/2} = 1``, else 2; ``wsyn``
 the synthesis window over ``n_fft``, :func:`irfft_window`), whose frames the
 caller overlap-adds in class order (:func:`overlap_add_classes`).  The
-session encode (R, the magnitude encode of N) and the full-K melspec front
-end (E, F) run the forward; the full-K Griffin-Lim step (J) both; the
-streaming roundtrips (L, M) both in one team (``frames_roundtrip``),
-wherever :func:`fft_covers` takes ``n_fft``; every other ``n_fft`` keeps the
-window-folded products of ``dft_common.cuh`` and ``synth_ola.cuh``.  The
-rule reads ``n_fft`` alone.
+session encode (R, the magnitude encode of N) and the full-K melspec and
+representation front ends (E, F, G, H) run the forward; K's synthesis the
+inverse; the full-K Griffin-Lim step (J) both; the streaming roundtrips (L,
+M) both in one team (``frames_roundtrip``), wherever :func:`fft_covers`
+takes ``n_fft``; every other ``n_fft`` keeps the window-folded products of
+``dft_common.cuh`` and ``synth_ola.cuh``.  The rule reads ``n_fft`` alone.
 
 The schedule, which :func:`frames_rfft_reference` and
 :func:`frames_irfft_reference` repeat step for step:
@@ -66,8 +66,8 @@ TWO_BLOCKS_SMEM = 233472 // 2 - 1024   # a block's share when two run on one SM 
 
 def fft_covers(n_fft: int) -> bool:
     """Whether the FFT route takes ``n_fft``: a power of two from 64 to 4096.
-    R, E, F, J, L and M run the window-folded products for every other
-    ``n_fft``."""
+    R, E, F, G, H, J, K's synthesis, L and M run the window-folded products
+    for every other ``n_fft``."""
     n = int(n_fft)
     return FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0
 

@@ -5,10 +5,17 @@ Two hand-written kernels (``csrc/pghi.cu``): the recurrence (log-magnitude,
 phase gradients, anchor mask, two-sided segmented fill along bins, the serial
 trapezoid recurrence over frames, silent-bin phases from an input), one thread
 block per clip, and the synthesis (``mag * e^{i phase}``, windowed inverse DFT
-and overlap-add in one product), one block per clip and tile of output chunks.
-``pghi_invert_fused`` is the first followed by the second; the envelope
-division and the centre trim run outside on the small audio tensor, as they do
-in the JAX package.
+and overlap-add), one block per clip and tile of output chunks.  The synthesis
+has two routes, picked by ``n_fft`` alone (``frames_fft.fft_covers``): where
+``n_fft`` is a power of two from 64 to 4096 the FFT route
+(``csrc/fft_smem.cuh:frames_irfft``: an inverse FFT of every frame, the
+overlap-add by classes, no basis; plain version ``frames_irfft_reference`` and
+``overlap_add_classes``), elsewhere the product route (a window-folded basis
+of ``(overlap, 2F, hop)``, the inverse DFT and the overlap-add in one
+product).  ``routes`` counts its launches by route.  ``pghi_invert_fused`` is
+the recurrence followed by the synthesis; the envelope division and the
+centre trim run outside on the small audio tensor, as they do in the JAX
+package.
 
 Entry points: :func:`pghi_phases_fused`, :func:`pghi_phases_bidir`,
 :func:`pghi_synthesize_fused`, :func:`pghi_invert_fused`,
@@ -36,6 +43,15 @@ from ..fft import _idft_matrices, _tables
 from ..framing import overlap_add
 from ..pghi import EPS, random_angles
 from . import _build
+from .frames_fft import (
+    class_plan,
+    fft_covers,
+    fft_smem_floats,
+    fft_twiddles,
+    frames_irfft_reference,
+    irfft_window,
+    overlap_add_classes,
+)
 from .glstep import _env_rows
 
 __all__ = [
@@ -46,7 +62,7 @@ __all__ = [
     "pghi_synthesize_fused", "pghi_synthesize_fused_reference",
     "pghi_fused_available", "pghi_phases_available",
     "ola_supported", "pghi_dispatch",
-    "launches", "reset_launches",
+    "launches", "routes", "reset_launches",
 ]
 
 MAX_SMEM = 232448                 # bytes of shared memory a block may use on sm_90
@@ -55,11 +71,15 @@ _SYN_KC, _SYN_COLS = 32, 256      # staged contraction rows / sample columns (sy
 
 #: kernel launches made by the wrappers of this module, by kernel
 launches: Dict[str, int] = {"pghi_phases": 0, "pghi_synthesize": 0}
+#: the synthesis's launches by route, ``"pghi_synthesize:fft"`` /
+#: ``":product"`` (each also counts in ``launches``)
+routes: Dict[str, int] = {"pghi_synthesize:fft": 0, "pghi_synthesize:product": 0}
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for d in (launches, routes):
+        for k in d:
+            d[k] = 0
 
 
 # ------------------------------------------------------------------ gates
@@ -79,6 +99,22 @@ def _k_padded(n_bins: int) -> int:
 def _synth_smem_bytes(rows: int, overlap: int, k_padded: int) -> int:
     """Shared memory of one synthesis block, as ``csrc/pghi.cu`` lays it out."""
     return 4 * ((rows + overlap - 1) * k_padded + _SYN_KC * _SYN_COLS)
+
+
+def _synth_fft_smem_bytes(rows: int, hop: int, n_fft: int, teams: int) -> int:
+    """Shared memory of one synthesis block on the FFT route: the samples of
+    ``rows`` chunks and ``frames_irfft``'s area (the synthesis window in the
+    window's place)."""
+    return 4 * (rows * hop + fft_smem_floats(n_fft, teams))
+
+
+def _synth_fft_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
+    """``(rows, teams)`` of the FFT route's synthesis block: ``rows`` output
+    chunks, a multiple of ``2 overlap``, behind which it synthesizes ``rows +
+    2 overlap`` frames (``frames_fft.class_plan``; 56 chunks and 4 FFTs at
+    1024/256)."""
+    return class_plan(n_fft, hop, lambda rows, teams: _synth_fft_smem_bytes(rows, hop, n_fft, teams),
+                      widest=max(64, 2 * (n_fft // hop)))
 
 
 def _pick_rows(n_fft: int, hop: int) -> Optional[int]:
@@ -383,12 +419,20 @@ def _finish_audio(y, window, T, n_fft, hop, length, batch_shape):
 
 
 def pghi_synthesize_fused_reference(mag, phases, n_fft, hop_length, window, length=None):
-    """Plain PyTorch version of :func:`pghi_synthesize_fused`."""
+    """Plain PyTorch version of :func:`pghi_synthesize_fused`, on the route
+    the kernel takes: where ``fft_covers(n_fft)`` the FFT route's schedule
+    (``frames_irfft_reference`` with pair stride ``overlap`` over the whole
+    clip, then ``overlap_add_classes``), elsewhere the window-folded inverse
+    DFT as two products and one overlap-add."""
     m, batch_shape = _as_btf(mag, n_fft)
     ph = phases.reshape(m.shape).to(torch.float32)
-    Aw, Bw = _windowed_idft(window.to(m.device), n_fft)
-    frames = torch.matmul(m * torch.cos(ph), Aw) + torch.matmul(m * torch.sin(ph), Bw)
-    y = overlap_add(frames, hop_length)
+    re, im = m * torch.cos(ph), m * torch.sin(ph)
+    if fft_covers(n_fft):
+        w = irfft_window(window.to(m.device), n_fft)
+        y = overlap_add_classes(frames_irfft_reference(re, im, w, stride=n_fft // hop_length), hop_length)
+    else:
+        Aw, Bw = _windowed_idft(window.to(m.device), n_fft)
+        y = overlap_add(torch.matmul(re, Aw) + torch.matmul(im, Bw), hop_length)
     return _finish_audio(y, window, m.shape[1], n_fft, hop_length, length, batch_shape)
 
 
@@ -463,16 +507,27 @@ def _launch_synthesize(m, ph, n_fft, hop, window) -> torch.Tensor:
     _require_synthesis(n_fft, hop)
     B, T, n_bins = m.shape
     overlap = n_fft // hop
-    basis = _synth_basis(window.to(m.device), n_fft, hop)
     out = torch.empty((B, (T + overlap - 1) * hop), dtype=torch.float32, device=m.device)
     lib = _build.load_library()
+    fft = fft_covers(n_fft)
     with torch.cuda.device(m.device):
-        code = lib.att_pghi_synthesize(
-            m.data_ptr(), ph.data_ptr(), basis.data_ptr(), out.data_ptr(), B, T, n_bins, hop,
-            overlap, basis.shape[1], _pick_rows(n_fft, hop), _stream(),
-        )
+        if fft:
+            rows, teams = _synth_fft_plan(n_fft, hop)
+            wsyn = irfft_window(window.to(m.device), n_fft).contiguous()
+            (tw,) = _tables(fft_twiddles, m.device, n_fft)
+            code = lib.att_pghi_synthesize_fft(
+                m.data_ptr(), ph.data_ptr(), wsyn.data_ptr(), tw.data_ptr(), out.data_ptr(), B, T,
+                n_bins, hop, overlap, rows, teams, _stream(),
+            )
+        else:
+            basis = _synth_basis(window.to(m.device), n_fft, hop)
+            code = lib.att_pghi_synthesize(
+                m.data_ptr(), ph.data_ptr(), basis.data_ptr(), out.data_ptr(), B, T, n_bins, hop,
+                overlap, basis.shape[1], _pick_rows(n_fft, hop), _stream(),
+            )
     _build.check(code, "pghi_synthesize")
     launches["pghi_synthesize"] += 1
+    routes["pghi_synthesize:fft" if fft else "pghi_synthesize:product"] += 1
     return out
 
 
@@ -529,8 +584,8 @@ def pghi_synthesize_fused(
     length: Optional[int] = None,
 ) -> torch.Tensor:
     """``istft(mag * e^{i phases})`` by the synthesis kernel (windowed inverse
-    DFT and overlap-add in one product; torch ISTFT conventions).  ``window``
-    is the synthesis window."""
+    DFT and overlap-add: an FFT a frame where ``fft_covers(n_fft)``, else one
+    product; torch ISTFT conventions).  ``window`` is the synthesis window."""
     if not mag.is_cuda:
         return pghi_synthesize_fused_reference(mag, phases, n_fft, hop_length, window, length)
     m, batch_shape = _as_btf(mag, n_fft)

@@ -21,13 +21,17 @@ power of two from 64 to 4096 the FFT route (``csrc/fft_smem.cuh:frames_rfft``,
 the window and a twiddle table, no basis; plain version
 ``frames_fft.frames_rfft_reference``), elsewhere the product route (a basis of
 ``n_fft x 2F`` with the window folded in, ``overlap`` times the multiply-adds
-of the factored form).  ``routes`` counts E's and F's launches by route.  All
-need ``hop | n_fft``.
+of the factored form).  All need ``hop | n_fft``.
 
 ``fused_spectral_repr`` and ``fused_repr_stats`` are the two-channel twins
 (Polar, PolarIF, Cartesian): one DFT feeds channel 1 (``|X|`` through mel,
 contrast and affine, or ``Re``) and channel 2 (the angle, the frame-local
-instantaneous frequency, or ``Im``) with an affine each.
+instantaneous frequency, or ``Im``) with an affine each.  Their full-K front
+end (kernels G and H full-K) takes the same two routes by the same rule; on
+the FFT route a block with the IF computes two frames before its tile (the
+halo frame and its FFT partner), so that every frame goes through the FFT
+with the partner it has in the plain version's whole-clip schedule.
+``routes`` counts the launches of the full-K kernels by route.
 
 ``melspec_forward_stage`` runs the factored forward cut after one of its
 stages (``STAGES``) on prepared rows: the kernel of the floor sweep
@@ -81,6 +85,7 @@ __all__ = [
 ]
 
 TILES = (32, 16, 8)               # frames per block the kernels can run, widest first
+FFT_TILES = (32, 16, 8, 4, 2)     # the representation kernels' FFT route: also 4 and 2
 _CONTRASTS = {"none": 0, None: 0, "log1p": 1}
 
 #: kernel launches made by the wrappers of this module, by kernel
@@ -91,11 +96,13 @@ launches: Dict[str, int] = {
     "fused_repr_stats": 0, "fused_repr_stats_fullk": 0,
     "melspec_stage": 0,
 }
-#: E's and F's launches by route, ``"<kernel>:fft"`` / ``"<kernel>:product"``
-#: (each also counts in ``launches``)
+#: the full-K kernels' launches by route, ``"<kernel>:fft"`` /
+#: ``"<kernel>:product"`` (each also counts in ``launches``)
 routes: Dict[str, int] = {
     "fused_melspec_fullk:fft": 0, "fused_melspec_fullk:product": 0,
     "fused_melspec_stats_fullk:fft": 0, "fused_melspec_stats_fullk:product": 0,
+    "fused_spectral_repr_fullk:fft": 0, "fused_spectral_repr_fullk:product": 0,
+    "fused_repr_stats_fullk:fft": 0, "fused_repr_stats_fullk:product": 0,
 }
 #: channel-2 selectors of the representation kernels
 SECONDS = {"phase": 0, "if": 1, "imag": 2}
@@ -169,6 +176,53 @@ def _repr_smem_bytes(tile_t: int, hop: int, overlap: int, n_bins: int, stats: bo
     return 4 * ((tile_t + overlap) * hop + (0 if stats else tile_t * n_bins) + work)
 
 
+def _repr_fft_halo(second: str) -> int:
+    """Frames the FFT route computes before a block's tile: the IF's halo
+    frame and its FFT partner."""
+    return 2 if second == "if" else 0
+
+
+def _repr_fft_smem_bytes(tile_t: int, hop: int, overlap: int, n_bins: int, teams: int, stats: bool,
+                         second: str, mel: bool) -> int:
+    """Shared memory of one block of G or H on the FFT route, as
+    ``csrc/spectral.cu:repr_fft_smem_floats`` lays it out: the hop chunks of
+    the tile and its halo, rows of ``n_bins`` (channel 1 for the mel product,
+    a multiple of 8; the IF's angles of the tile and its halo frame; the
+    statistics kernel's two channels), then ``frames_rfft``'s area."""
+    if stats:
+        c1, c2 = tile_t, tile_t + 1 if second == "if" else tile_t
+    else:
+        c1 = -(-tile_t // 8) * 8 if mel and second != "imag" else 0
+        c2 = tile_t + 1 if second == "if" else 0
+    rows = tile_t + _repr_fft_halo(second) + overlap - 1
+    return 4 * (rows * hop + (c1 + c2) * n_bins + fft_smem_floats(overlap * hop, teams))
+
+
+def _pick_repr_fft_plan(n_fft: int, hop: int, stats: bool, second: str,
+                        mel: bool) -> Optional[Tuple[int, int]]:
+    """``(tile_t, teams)`` of G or H on the FFT route: among the frame tiles
+    (``FFT_TILES``) and FFT counts (up to ``4096 / n_fft``) that fit shared
+    memory, the one that gives an SM the most tile frames per round of pair
+    FFTs (its blocks an SM, two where the block leaves room for a second, as
+    ``_pick_fft_plan``, times ``tile_t`` over the rounds of its ``tile_t +
+    halo`` frames), the wider tile on a tie; or None.  At 1024/256 with the
+    IF and a mel bank: 8 frames, 4 FFTs."""
+    overlap, n_bins = n_fft // hop, n_fft // 2 + 1
+    best, score = None, 0.0
+    for tile_t in FFT_TILES:
+        pairs = -(-(tile_t + _repr_fft_halo(second)) // 2)
+        teams = fft_max_teams(n_fft)
+        while teams >= 1:
+            smem = _repr_fft_smem_bytes(tile_t, hop, overlap, n_bins, teams, stats, second, mel)
+            if smem <= MAX_SMEM:
+                blocks = 2 if smem <= TWO_BLOCKS_SMEM else 1
+                sc = blocks * tile_t / -(-pairs // teams)
+                if sc > score:
+                    best, score = (tile_t, teams), sc
+            teams //= 2
+    return best
+
+
 def _pick_repr_tile(hop: int, overlap: int, n_bins: int) -> Optional[int]:
     """The widest frame tile whose forward block fits shared memory and whose
     rows (tile, halo frame and overlap) fit the analysis tile's 40, or None."""
@@ -240,25 +294,25 @@ def _fullk_basis(window: torch.Tensor, n_fft: int) -> Tuple[torch.Tensor, torch.
     return (w * C).contiguous(), (w * S).contiguous()
 
 
-def _fullk_spectrum(x, n_fft, hop, center, window, *, fft: bool):
+def _fullk_spectrum(x, n_fft, hop, center, window):
     """(re, im) of the windowed STFT, the full-K kernels' front end: frames
-    are overlapping slices of the prepared rows.  ``fft`` and
-    ``fft_covers(n_fft)``: the FFT route's schedule
-    (``frames_rfft_reference``); otherwise the window lies in the basis."""
+    are overlapping slices of the prepared rows.  Where ``fft_covers(n_fft)``
+    the FFT route's schedule over the whole clip (``frames_rfft_reference``);
+    otherwise the window lies in the basis."""
     rows, T, _ = _prepare_rows(x, n_fft, hop, center)
     flat = _rows_to_float(rows).reshape(rows.shape[0], -1)
     frames = flat.unfold(-1, n_fft, hop)[:, :T]
-    if fft and fft_covers(n_fft):
+    if fft_covers(n_fft):
         return frames_rfft_reference(frames, window.to(x.device))
     WC, WS = _fullk_basis(window.to(x.device), n_fft)
     return torch.matmul(frames, WC), torch.matmul(frames, WS)
 
 
-def _spectrum(x, n_fft, hop, center, taps, window, *, fft: bool):
-    """(re, im) of the front end ``taps`` selects; ``fft=False`` keeps the
-    full-K product at every ``n_fft`` (the representation kernels')."""
+def _spectrum(x, n_fft, hop, center, taps, window):
+    """(re, im) of the front end and route the kernels take: the factored
+    front end with ``taps``, else the full-K one on its route."""
     if taps is None:
-        return _fullk_spectrum(x, n_fft, hop, center, window, fft=fft)
+        return _fullk_spectrum(x, n_fft, hop, center, window)
     return _factored_spectrum(x, n_fft, hop, center, taps)
 
 
@@ -303,7 +357,7 @@ def fused_melspec_reference(
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_melspec` (same arguments)."""
     _check_input(x, n_fft, hop_length, taps, window)
-    re, im = _spectrum(x, n_fft, hop_length, center, taps, window, fft=True)
+    re, im = _spectrum(x, n_fft, hop_length, center, taps, window)
     mag = re * re + im * im
     if power != 2.0:
         mag = torch.sqrt(mag)
@@ -325,7 +379,7 @@ def fused_melspec_stats_reference(
     """Plain PyTorch version of :func:`fused_melspec_stats`."""
     x = x.reshape((-1, x.shape[-1]))
     _check_input(x, n_fft, hop_length, taps, window)
-    re, im = _spectrum(x, n_fft, hop_length, center, taps, window, fft=True)
+    re, im = _spectrum(x, n_fft, hop_length, center, taps, window)
     v = _apply_contrast(torch.sqrt(re * re + im * im), contrast)
     vd = v.double()
     return {
@@ -608,8 +662,10 @@ def _if_rows(ph: torch.Tensor, weighted: bool) -> torch.Tensor:
 
 
 def _repr_channels(x, n_fft, hop, center, taps, window, second, contrast, mel_bank, weighted):
-    """Pre-affine (channel 1, channel 2) of the representation kernels."""
-    re, im = _spectrum(x, n_fft, hop, center, taps, window, fft=False)
+    """Pre-affine (channel 1, channel 2) of the representation kernels, on
+    the front end and route the kernel takes (the FFT route's schedule over
+    the whole clip where ``taps=None`` and ``fft_covers(n_fft)``)."""
+    re, im = _spectrum(x, n_fft, hop, center, taps, window)
     im = _pin_nyquist(im)
     if second == "imag":
         return re, im
@@ -672,31 +728,51 @@ def fused_repr_stats_reference(
     return {"ch1": chan(c1), "ch2": chan(c2), "count": int(c1.numel())}
 
 
+def _repr_refusal(n_fft, hop) -> NotImplementedError:
+    return NotImplementedError(
+        "the CUDA representation kernels hold one block's tile in shared "
+        "memory, which n_fft=%d hop=%d exceeds (ROADMAP Queue 2, K7: shapes "
+        "above n_fft 4096); use backend='eager'" % (n_fft, hop)
+    )
+
+
 def _repr_kernel_tile(n_fft, hop, taps) -> int:
-    """The representation kernels' frame tile for this shape, or raise."""
+    """The representation kernels' frame tile on the factored and the
+    product route for this shape, or raise."""
     if not fused_melspec_available(n_fft, hop, taps):
         _kernel_tile(n_fft, hop, taps)  # raises with the reason
     tile_t = _pick_repr_tile(hop, n_fft // hop, n_fft // 2 + 1)
     if tile_t is None:
-        raise NotImplementedError(
-            "the CUDA representation kernels hold one block's tile in shared "
-            "memory, which n_fft=%d hop=%d exceeds (ROADMAP Queue 2, K7: shapes "
-            "above n_fft 4096); use backend='eager'" % (n_fft, hop)
-        )
+        raise _repr_refusal(n_fft, hop)
     return tile_t
+
+
+def _repr_plan(n_fft, hop, taps, stats, second, mel) -> Tuple[int, int]:
+    """``(tile_t, teams)`` of the representation kernels for this shape,
+    ``teams = 0`` off the FFT route (which ``taps=None`` and
+    ``fft_covers(n_fft)`` select), or raise: the kernels never give way."""
+    if taps is None and fft_covers(n_fft) and fused_melspec_available(n_fft, hop, taps):
+        plan = _pick_repr_fft_plan(n_fft, hop, stats, second, mel)
+        if plan is None:
+            raise _repr_refusal(n_fft, hop)
+        return plan
+    return _repr_kernel_tile(n_fft, hop, taps), 0
 
 
 def _launch_repr(x, n_fft, hop, second, taps, window, contrast, weighted, center, stats,
                  mel_bank=None, aff=None):
     """One launch of kernel G (``stats=False``) or H; returns its outputs."""
-    tile_t = _repr_kernel_tile(n_fft, hop, taps)
+    tile_t, teams = _repr_plan(n_fft, hop, taps, stats, second, mel_bank is not None and not stats)
     if contrast not in _CONTRASTS:
         _apply_contrast(x, contrast)  # raises with the reason
     dev = x.device
     F = n_fft // 2 + 1
-    rows, T, n_tiles = _prepare_rows(x, n_fft, hop, center, tile_t, lead=1)
+    # the FFT route reads frame f from row f + its halo, the others from row f + 1
+    lead = _repr_fft_halo(second) if teams else 1
+    rows, T, n_tiles = _prepare_rows(x, n_fft, hop, center, tile_t, lead=lead)
     B = rows.shape[0]
-    (bc, bs), twr_p, twi_p, taps_c, P, _ = _front_end(dev, n_fft, hop, taps, window, fft=False)
+    (bc, bs), twr_p, twi_p, taps_c, P, (win, tw) = _front_end(dev, n_fft, hop, taps, window,
+                                                              fft=teams > 0)
     bank_p = lo_p = hi_p = None
     if mel_bank is not None:
         if mel_bank.device != dev or mel_bank.dtype != torch.float32 or tuple(mel_bank.shape) != (F, F):
@@ -720,14 +796,14 @@ def _launch_repr(x, n_fft, hop, second, taps, window, contrast, weighted, center
     with torch.cuda.device(dev):
         code = lib.att_repr(
             int(stats), rows.data_ptr(), int(rows.dtype == torch.int16), B, n_tiles, tile_t,
-            rows.shape[1], hop, n_fft // hop, F, T, bc.data_ptr(), bs.data_ptr(), twr_p, twi_p,
+            rows.shape[1], hop, n_fft // hop, F, T, ptr(bc), ptr(bs), twr_p, twi_p,
             taps_c, P, SECONDS[second], int(bool(weighted)), _CONTRASTS[contrast],
             bank_p, lo_p, hi_p, ptr(aff_t), ptr(out1), ptr(out2), ptr(partials), ptr(stats_t),
-            _stream(),
+            ptr(win), ptr(tw), teams, _stream(),
         )
     name = ("fused_repr_stats" if stats else "fused_spectral_repr") + ("" if taps is not None else "_fullk")
     _build.check(code, name)
-    launches[name] += 1
+    _count(name, taps, teams)
     return (stats_t, B * T * F) if stats else (out1, out2)
 
 

@@ -24,17 +24,20 @@ chunk; lookahead 4 too), all held against the generic chunk scan, and (phase
 the same calls on the CPU, and shapes the port's kernels take (1200/300) on
 the kernels.  The session encode (R, the magnitude encode), the full-K
 melspec front end (E, F), the full-K Griffin-Lim step (J) and the streaming
-roundtrips (L, M) have two routes, picked by n_fft alone: a shared-memory
-FFT (``csrc/fft_smem.cuh``: ``frames_rfft`` for the analyses,
-``frames_irfft`` for the syntheses of J, L and M) at a power of two from 64
-to 4096, the window-folded products elsewhere.  Phases 3 and 4f hold the
-FFT route against its plain version (within 1e-5 for R, E and F; 1e-6 for
-J, L and M, which come out bit-identical) and against a float64 oracle at
-1024, 512, 2048 and 4096, and the product route at 768/256 (E, F, J),
-8192/2048 (J), 1200/300 (R, L, M) and 960/240 (R); the launch counters'
-route tally shows every main-path launch of the seven on the FFT route, and
+roundtrips (L, M), K's synthesis and the full-K representation kernels (G,
+H) have two routes, picked by n_fft alone: a shared-memory FFT
+(``csrc/fft_smem.cuh``: ``frames_rfft`` for the analyses, ``frames_irfft``
+for the syntheses of J, L, M and K) at a power of two from 64 to 4096, the
+window-folded products elsewhere.  Phases 3 and 4f hold the FFT route
+against its plain version (within 1e-5 for R, E and F; 1e-6 for J, L, M,
+K's synthesis, G and H, which come out bit-identical) and against a float64
+oracle at 1024, 512, 2048 and 4096 (K, G and H at every power of two from
+64), and the product route at 768/256 (E, F, J, K, G, H), 768/192 (K),
+8192/2048 (J), 1200/300 (R, L, M, K) and 960/240 (R); the launch counters'
+route tally shows every main-path launch of the ten on the FFT route, and
 phase 4h drives the product routes through the entry points (1200/300
-sessions, a DGT(768, 256) chain's fit, forward and ``pghi_gl``).  Phase
+sessions, a DGT(768, 256) chain's fit, forward, ``pghi`` and ``pghi_gl``,
+DGT(768, 256) + PolarIF's fit and forward).  Phase
 6 runs the floor sweep of A
 (``acids_transforms_tpu_torch.tools.sweep_kernel_floor``: kernel T, A cut
 after each of its stages) at the main path's shape, prints each stage's
@@ -51,7 +54,8 @@ prints
   formulation needs), and apart from the bound the fp32
   ceiling of the kernel's own design (the product's multiply-adds, or the
   FFT route's operations, at 67 TFLOP/s); ``front_end`` "fft" or "product"
-  on the rows of R, the magnitude encode, E, F, J, L and M, one row a route),
+  on the rows of R, the magnitude encode, E, F, J, L, M, K's synthesis, G
+  and H full-K, one row a route),
 * the card's name and power limit as ``nvidia-smi`` gives them,
 * and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -398,6 +402,7 @@ def check_pghi(name, mag, n_fft, hop, window, gamma, seed, results, n64=4):
     that point, and the difference then rides along the chain); and it may be
     no further from the float64 run than 1.5 times the plain version plus
     1e-4."""
+    from acids_transforms_tpu_torch.ops.cuda import frames_fft as ff
     from acids_transforms_tpu_torch.ops.cuda import pghi_kernel as pk
 
     dev = mag.device
@@ -427,16 +432,27 @@ def check_pghi(name, mag, n_fft, hop, window, gamma, seed, results, n64=4):
         results["K_phases"] = max(results.get("K_phases", 0.0), e_kp)
         results.setdefault("K_f64", {})[f"{name} {label}"] = (
             e_p64, e_k64, (ph_p[sub].double() - ph_64).abs().max().item(), ph_64.abs().max().item())
-        # synthesis of the kernel's own phases: kernel vs plain (fp32 products
-        # in another order than cuBLAS, sincosf vs torch's sin and cos: 1e-4)
+        # synthesis of the kernel's own phases: kernel vs plain.  The FFT
+        # route repeats its plain version's float32 operations in order (and
+        # sincosf equals torch's sin and cos on the card): 1e-6, measured
+        # bit-identical; the product route sums in another order than cuBLAS:
+        # 1e-4
+        fft = ff.fft_covers(n_fft)
+        tol_s = 1e-6 if fft else 1e-4
+        pk.reset_launches()
         a_k = pk.pghi_synthesize_fused(mag, ph_k, n_fft, hop, window)
+        route = "fft" if fft else "product"
+        require(pk.routes[f"pghi_synthesize:{route}"] == 1 and sum(pk.routes.values()) == 1,
+                f"K {name}: the synthesis did not take the {route} route")
         a_p = pk.pghi_synthesize_fused_reference(mag, ph_k, n_fft, hop, window)
         torch.cuda.synchronize()
         e_s = rel_err(a_k, a_p)
-        log(f"  K {name} synthesis of the {label}: audio rel {e_s:.3e} (tol 1e-04), shape {tuple(a_k.shape)}")
+        log(f"  K {name} synthesis of the {label} ({route} route): audio rel {e_s:.3e} (tol {tol_s:.0e}; "
+            f"bit-identical {torch.equal(a_k, a_p)}), shape {tuple(a_k.shape)}")
         require(torch.isfinite(a_k).all().item() and a_k.shape == a_p.shape, f"K {name}: bad audio")
-        require(e_s <= 1e-4, f"K {name} synthesis disagrees with plain")
-        results["K_synth"] = max(results.get("K_synth", 0.0), abs_err(a_k, a_p))
+        require(e_s <= tol_s, f"K {name} synthesis disagrees with plain")
+        key = "K_synth" if fft else "K_synth_product"
+        results[key] = max(results.get(key, 0.0), abs_err(a_k, a_p))
         # the whole inversion, kernels against plain versions
         inv_k = (pk.pghi_invert_fused if label == "phases" else pk.pghi_invert_bidir)(
             mag, gamma, n_fft, hop, window, **kw)
@@ -1180,7 +1196,8 @@ def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
 
 def structure_phase(dev, mono, stream, wrappers, errs, counts):
     """Phase 4h: the dispatch at shapes outside the JAX package's gates, and
-    the product routes of the encode and of E / F.
+    the product routes of the encode and of the full-K kernels (E, F, J, K's
+    synthesis, G, H).
 
     * Shapes that neither the JAX package's gates nor the port's kernels
       cover run the eager route on the card, as the JAX package runs them on
@@ -1207,7 +1224,10 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     * E and F on the product route through the entry points: the DGT
       magnitude chain at 768/256 (``fuse_fit`` + ``fuse_forward`` on up to 16
       clips), its fit and forward within 1e-5 / 1e-4 of the eager chain's, as
-      phase 4b holds the main shape."""
+      phase 4b holds the main shape; its ``pghi_gl`` invert (J) and ``pghi``
+      invert (K's synthesis) converging like the eager routes; G and H
+      full-K through ``DGT(768, 256) + PolarIF``'s fit and forward, the
+      magnitude's fit and channel 1 against the eager chain."""
     from acids_transforms_tpu_torch import streaming
     from acids_transforms_tpu_torch import transforms as T
     from acids_transforms_tpu_torch.ops.cuda import pghi_kernel as pk
@@ -1278,8 +1298,10 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     got, n_l = {k: v for k, v in pk.launches.items() if v}, launched()
     y_f = pk.pghi_invert_fused(mag, st.gamma, n_fft, hop, st.inv_window, tolerance=st.tolerance, angles=ang)
     log(f"  STFT(1200, 300) pghi: launches {got}; the same as pghi_invert_fused: {torch.equal(y_k, y_f)}")
-    require(got == {"pghi_phases": 1, "pghi_synthesize": 1} and n_l == 2 and torch.equal(y_k, y_f),
-            "STFT(1200, 300) pghi must run K")
+    require(got == {"pghi_phases": 1, "pghi_synthesize": 1} and n_l == 2 and torch.equal(y_k, y_f)
+            and pk.routes["pghi_synthesize:product"] == 2, "STFT(1200, 300) pghi must run K, its synthesis "
+            "on the product route")
+    counts["pghi_synthesize:product"] += 1
     check_pghi("1200/300", mag, n_fft, hop, st.inv_window, st.gamma, 152, errs)
     xs = mono[:4, :8 * chunk].contiguous()
     chain = T.OverlapAdd(n_fft, hop) + T.RealtimeSTFT(n_fft=n_fft, hop_length=hop)
@@ -1392,6 +1414,49 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     log(f"    spectral convergence through J {s_j:.5f}, eager loop from the same seed {s_e:.5f} "
         f"(must be < {max(1.15 * s_e, s_e + 0.02):.5f})")
     require(s_j < max(1.15 * s_e, s_e + 0.02), "DGT(768, 256) pghi_gl: J converges worse than the eager loop")
+    # K's synthesis on the product route: that chain's pghi inversion,
+    # converging like the eager pghi_scan + istft from the same seed
+    from acids_transforms_tpu_torch.ops import pghi as pghi_ops
+    from acids_transforms_tpu_torch.ops.fft import istft
+
+    zero()
+    rec = d_fit.invert(y_k, inversion_mode="pghi")
+    torch.cuda.synchronize()
+    got = {k: v for k, v in pk.routes.items() if v}
+    log(f"  DGT(768, 256) pghi invert: launches { {k: v for k, v in pk.launches.items() if v} }, routes {got}")
+    require(got == {"pghi_synthesize:product": 1} and pk.launches["pghi_phases"] == 1
+            and torch.isfinite(rec).all().item(), "DGT(768, 256) pghi: K's synthesis must take the product route")
+    counts["pghi_synthesize:product"] += 1
+    g_e = torch.Generator(device=dev).manual_seed(dgt.seed)
+    ph_e = pghi_ops.pghi_scan(target, dgt.gamma, 768, 256, tolerance=dgt.tolerance, time_stencil="central",
+                              generator=g_e)
+    s_k, s_e = conv(rec), conv(istft(torch.polar(target, ph_e), 768, 256, dgt.inv_window))
+    log(f"    spectral convergence through K {s_k:.5f}, eager pghi_scan + istft {s_e:.5f} "
+        f"(must be < {max(1.15 * s_e, s_e + 0.02):.5f})")
+    require(s_k < max(1.15 * s_e, s_e + 0.02), "DGT(768, 256) pghi: K converges worse than the eager scan")
+    # G and H full-K on the product route: DGT(768, 256) + PolarIF, fit and
+    # forward through the entry points, against the eager chain
+    r_chain = T.Mono() + T.DGT(n_fft=768, hop_length=256) + T.PolarIF(
+        magnitude_args={"mode": "bipolar", "n_fft": 768})
+    zero()
+    r_fit = att.fuse_fit(r_chain)(audio)
+    y_r = att.fuse_forward(r_fit)(audio)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in sp.routes.items() if v}
+    log(f"  DGT(768, 256) + PolarIF, fit + forward on {tuple(audio.shape)}: launches "
+        f"{ {k: v for k, v in sp.launches.items() if v} }, routes {got}")
+    require(got == {"fused_repr_stats_fullk:product": 1, "fused_spectral_repr_fullk:product": 1}
+            and launched() == 2, "DGT(768, 256) + PolarIF: H and G must launch once each on the product route")
+    for k, v in got.items():
+        counts[k] += v
+    e_fit = r_chain.fit(audio)
+    e_m = max(abs(getattr(r_fit[2].magnitude.norm, a).item() - getattr(e_fit[2].magnitude.norm, a).item())
+              for a in ("offset", "scale")) / abs(e_fit[2].magnitude.norm.scale.item())
+    e_y = rel_err(y_r[..., 0, :], r_fit.forward(audio)[..., 0, :])
+    log(f"    magnitude fit vs chain.fit {e_m:.3e} of the scale (tol 1e-05); channel 1 vs the eager chain rel "
+        f"{e_y:.3e} (tol 1e-04)")
+    require(torch.isfinite(y_r).all().item() and e_m <= 1e-5 and e_y <= 1e-4,
+            "DGT(768, 256) + PolarIF: the product route differs from the eager chain")
 
 
 def sweep_phase(args, dev, mono, bank, off, scl, taps, kernels, bound_of, wrappers):
@@ -1612,10 +1677,29 @@ def main() -> int:
             require(teams > 0 and lib.att_session_roundtrip_fft_smem_bytes(rows, ov_s, hop_s, teams)
                     == ss._roundtrip_fft_smem_bytes(rows, ov_s, hop_s, teams),
                     "roundtrip FFT route's shared-memory size: wrapper and source disagree")
+            rows, teams = pghi_kernel._synth_fft_plan(n_fft_s, hop_s)
+            require(lib.att_pghi_synth_fft_smem_bytes(rows, hop_s, n_fft_s, teams)
+                    == pghi_kernel._synth_fft_smem_bytes(rows, hop_s, n_fft_s, teams),
+                    "K synthesis FFT route's shared-memory size: wrapper and source disagree")
+            if hop_s % 32 == 0:
+                for st in (0, 1):
+                    for second, sel in spectral.SECONDS.items():
+                        for mel in (0, 1):
+                            tile_r, teams_r = spectral._repr_plan(n_fft_s, hop_s, None, bool(st), second, bool(mel))
+                            require(teams_r > 0, f"{n_fft_s}/{hop_s}: G and H must take the FFT route")
+                            for t_s in spectral.FFT_TILES:
+                                require(lib.att_repr_fft_smem_bytes(t_s, hop_s, ov_s, f_s, teams_r, st, sel, mel)
+                                        == spectral._repr_fft_smem_bytes(t_s, hop_s, ov_s, f_s, teams_r, bool(st),
+                                                                         second, bool(mel)),
+                                        "representation FFT route's shared-memory size: wrapper and source "
+                                        "disagree")
             n_fft_checked += 1
     log(f"    shared-memory sizes of the FFT route: wrapper and source agree at {n_fft_checked} shapes "
         f"(plans at {N_FFT}/{HOP}: encode {ss._encode_plan(N_FFT, HOP)}, E/F "
-        f"{spectral._kernel_plan(N_FFT, HOP, None)}, L/M {ss._roundtrip_plan(N_FFT, HOP)} as (rows or "
+        f"{spectral._kernel_plan(N_FFT, HOP, None)}, L/M {ss._roundtrip_plan(N_FFT, HOP)}, K's synthesis "
+        f"{pghi_kernel._synth_fft_plan(N_FFT, HOP)}, G / H full-K with the IF "
+        f"{spectral._repr_plan(N_FFT, HOP, None, False, 'if', True)} / "
+        f"{spectral._repr_plan(N_FFT, HOP, None, True, 'if', False)} as (rows or "
         f"tile, FFTs side by side); J {glstep._fullk_plan(N_FFT, HOP)} as (route, chunks, frames, FFTs))")
 
     # ------------------------------------------------ 3. kernels vs plain
@@ -1804,6 +1888,54 @@ def main() -> int:
                    dgt_gamma(n_fft), args.seed + n_fft + hop, errs)
     del holes
 
+    # K's synthesis on the FFT route at every power of two it takes, against
+    # its plain version (1e-6: the plain version repeats the kernel's float32
+    # operations in order, and sincosf is torch's sin and cos on the card;
+    # measured bit-identical) and against a float64 istft of the same
+    # magnitudes and float32 phases (1e-5: float32 sums over 2.5 n log2 n
+    # terms), on unwrapped phases up to 1e4 rad, with silent frames, a silent
+    # clip and an odd frame count whose last pair group has no partners; the
+    # product route at 768/192 and 768/256 (n_fft no power of two) against its
+    # plain version (1e-4: fp32 products in another order than cuBLAS) and
+    # the oracle.
+    def check_synth_route(name, n_fft, hop, x):
+        w_s = gaussian_dgt_window(n_fft, device=dev)
+        mag = att.ops.stft(x, n_fft, hop, w_s).abs()
+        ov = n_fft // hop
+        T_odd = mag.shape[1] - (mag.shape[1] % (2 * ov)) - ov - 1
+        mag = mag[:, :T_odd].contiguous()
+        mag[0, 3:7] = 0.0
+        mag[1] = 0.0
+        g = torch.Generator(device=dev).manual_seed(n_fft + hop)
+        ph = 1e4 * torch.rand(mag.shape, generator=g, device=dev)
+        fft = ff.fft_covers(n_fft)
+        route = "fft" if fft else "product"
+        pghi_kernel.reset_launches()
+        a_k = pghi_kernel.pghi_synthesize_fused(mag, ph, n_fft, hop, w_s)
+        require(pghi_kernel.routes[f"pghi_synthesize:{route}"] == 1, f"K synthesis {name}: not on the {route} route")
+        a_p = pghi_kernel.pghi_synthesize_fused_reference(mag, ph, n_fft, hop, w_s)
+        ora = torch.istft(torch.polar(mag.double(), ph.double()).transpose(-2, -1), n_fft, hop,
+                          window=w_s.double(), center=True)
+        torch.cuda.synchronize()
+        e_p, e_o = rel_err(a_k, a_p), rel_err(a_k.double(), ora)
+        tol = 1e-6 if fft else 1e-4
+        plan = pghi_kernel._synth_fft_plan(n_fft, hop) if fft else pghi_kernel._pick_rows(n_fft, hop)
+        log(f"  K synthesis {name} ({route} route, block {plan}; T = {T_odd}, phases to "
+            f"{ph.abs().max().item():.4g} rad): vs plain rel {e_p:.3e} (tol {tol:.0e}; bit-identical "
+            f"{torch.equal(a_k, a_p)}), vs float64 istft {e_o:.3e} (tol 1e-05)")
+        require(torch.isfinite(a_k).all().item() and a_k.shape == a_p.shape and not a_k[1].any(),
+                f"K synthesis {name}: bad audio")
+        require(e_p <= tol and e_o <= 1e-5, f"K synthesis {name} out of budget")
+        key = "K_synth" if fft else "K_synth_product"
+        errs[key] = max(errs.get(key, 0.0), abs_err(a_k, a_p))
+
+    for n_fft in (64, 128, 256, 512, 1024, 2048, 4096):
+        check_synth_route(f"{n_fft}/{n_fft // 4}", n_fft, n_fft // 4, small)
+    check_synth_route("main shape, 16 clips", N_FFT, HOP, mono[:16])
+    check_synth_route("512/64", 512, 64, small)
+    for n_fft, hop in ((768, 192), (768, 256)):
+        check_synth_route(f"{n_fft}/{hop}", n_fft, hop, small)
+
     # G and H: the two-channel representation kernels (Polar "phase",
     # PolarIF "if", Cartesian "imag"), factored (hann) and full-K (gaussian).
     # Channel 1 as A and E (fp32 sums in another order than cuBLAS: 2e-5).
@@ -1815,7 +1947,7 @@ def main() -> int:
     # products), and unweighted at bins above 1e-3 of the largest to 1e-3 rad.
     def check_repr(name, x, n_fft, hop, wname, second, bank, weighted=False):
         _, taps, window = front_end(wname, n_fft)
-        key = "G" if taps is not None else "G_fk"
+        key = "G" if taps is not None else ("G_fk" if ff.fft_covers(n_fft) else "G_fk_product")
         # the IF is held before a channel-2 offset: the output's float32
         # resolution, divided by the parabolic window near its zeros, would
         # otherwise exceed the angle's own error
@@ -1849,7 +1981,7 @@ def main() -> int:
     # versions' channels (a bin at the +-pi boundary may land on either side)
     def check_repr_stats(name, x, n_fft, hop, wname, second, weighted=False):
         _, taps, window = front_end(wname, n_fft)
-        key = "H" if taps is not None else "H_fk"
+        key = "H" if taps is not None else ("H_fk" if ff.fft_covers(n_fft) else "H_fk_product")
         kw = dict(weighted=weighted, taps=taps, window=window)
         s_k = spectral.fused_repr_stats(x, n_fft, hop, second, **kw)
         s_p = spectral.fused_repr_stats_reference(x, n_fft, hop, second, **kw)
@@ -1902,6 +2034,81 @@ def main() -> int:
         for wname in ("hann", "gaussian"):
             check_repr(f"{n_fft}/{hop}", rag, n_fft, hop, wname, "if", bank_s)
             check_repr_stats(f"{n_fft}/{hop}", rag, n_fft, hop, wname, "phase")
+
+    # G and H full-K by route.  The FFT route at every power of two it takes
+    # (hop n_fft / 4; 1024/128 for overlap 8), Polar, weighted PolarIF and
+    # Cartesian without mel, contrast or affine, against the plain version:
+    # both channels within 1e-6 of their largest value (the plain version
+    # repeats the kernel's float32 operations in order and atan2f is torch's
+    # atan2 on the card: measured bit-identical), against the float64 oracle
+    # (torch.stft in float64): |X| and Re / Im within 1e-5 of the largest
+    # value, the angle (or the IF's phase steps) weighted by |X| / max|X|
+    # within 1e-5; the launches on the route; H as above.  The product route
+    # (n_fft no power of two) at 768/256 as check_repr / check_repr_stats
+    # hold it.
+    def check_repr_route(name, x, n_fft, hop):
+        w = gaussian_dgt_window(n_fft, device=dev)
+        require(ff.fft_covers(n_fft), f"G / H full-K {name}: the FFT route's shape")
+        route = "fft"
+        S = torch.stft(x.double(), n_fft, hop, window=w.double(), center=True, pad_mode="reflect",
+                       return_complex=True).transpose(-2, -1)
+        for second, weighted in (("phase", False), ("if", True), ("imag", False)):
+            kw = dict(mel_bank=None, aff=(0.0, 1.0, 0.0, 1.0), contrast="none", weighted=weighted,
+                      taps=None, window=w)
+            spectral.reset_launches()
+            k1, k2 = spectral.fused_spectral_repr(x, n_fft, hop, second, **kw)
+            s_k = spectral.fused_repr_stats(x, n_fft, hop, second, contrast="none", weighted=weighted,
+                                            taps=None, window=w)
+            require(spectral.routes[f"fused_spectral_repr_fullk:{route}"] == 1
+                    and spectral.routes[f"fused_repr_stats_fullk:{route}"] == 1,
+                    f"G / H full-K {name} {second}: not on the {route} route")
+            p1, p2 = spectral.fused_spectral_repr_reference(x, n_fft, hop, second, **kw)
+            torch.cuda.synchronize()
+            e1, e2 = rel_err(k1, p1), rel_err(k2, p2)
+            same = torch.equal(k1, p1) and torch.equal(k2, p2)
+            if second == "imag":
+                o1, o2 = S.real, S.imag.clone()
+                o2[..., -1] = 0.0
+                e_o = max(rel_err(k1.double(), o1), rel_err(k2.double(), o2))
+                what = "Re / Im"
+            else:
+                ang = torch.angle(S)
+                ang[..., -1] = torch.where(S.real[..., -1] < 0, math.pi, 0.0)
+                o2 = ang if second == "phase" else spectral._if_rows(ang, weighted)
+                wt = S.abs() / S.abs().amax(dim=(-2, -1), keepdim=True)
+                if second == "if":
+                    wt[:, 1:] = torch.minimum(wt[:, 1:], wt[:, :-1])
+                e_a = (angle_error(second, k2, o2, 1.0, weighted) * wt).max().item()
+                e_o = max(rel_err(k1.double(), S.abs()), e_a)
+                what = "|X| and the |X|-weighted angle"
+            log(f"  G full-K {name} {second}{' weighted' if weighted else ''} ({route} route, plan "
+                f"{spectral._repr_plan(n_fft, hop, None, False, second, False)}): vs plain ch1 {e1:.3e}, ch2 "
+                f"{e2:.3e} (tol 1e-06; bit-identical {same}); vs float64 oracle ({what}) {e_o:.3e} "
+                f"(tol 1e-05)")
+            require(all(torch.isfinite(t).all().item() for t in (k1, k2)), f"G full-K {name}: not finite")
+            require(e1 <= 1e-6 and e2 <= 1e-6 and e_o <= 1e-5, f"G full-K {name} {second} out of budget")
+            errs["G_fk"] = max(errs.get("G_fk", 0.0), abs_err(k1, p1))
+            check_repr_stats(name, x, n_fft, hop, "gaussian", second, weighted)
+            del k1, k2, p1, p2
+        del S
+
+    for n_fft in (64, 128, 256, 512, 1024, 2048, 4096):
+        hop_s = max(32, n_fft // 4)                   # the kernels' gate: hop a multiple of 32
+        check_repr_route(f"{n_fft}/{hop_s}", rag, n_fft, hop_s)
+    check_repr_route("1024/128", rag, 1024, 128)
+    check_repr_route("main shape, 16 clips", mono[:16], N_FFT, HOP)
+    # the product route: n_fft 768 is no power of two
+    bank_p = T.Magnitude(mode="bipolar", n_fft=768).mel_bank
+    for second, weighted in (("phase", False), ("if", True), ("imag", False)):
+        spectral.reset_launches()
+        check_repr("768/256", rag, 768, 256, "gaussian", second, None if second == "imag" else bank_p, weighted)
+        check_repr_stats("768/256", rag, 768, 256, "gaussian", second, weighted)
+        require(spectral.routes["fused_spectral_repr_fullk:product"] >= 1
+                and spectral.routes["fused_repr_stats_fullk:product"] >= 1
+                and not spectral.routes["fused_spectral_repr_fullk:fft"]
+                and not spectral.routes["fused_repr_stats_fullk:fft"], "G / H full-K at 768/256: not on the product route")
+    spectral.reset_launches()
+    torch.cuda.empty_cache()
 
     # I: the projection alone.  It is the step kernel without its momentum
     # update, so it must equal C's projection from tprev = 0 bit for bit;
@@ -2124,11 +2331,15 @@ def main() -> int:
         f"launches {dgt_counts}")
     for k in ("fused_melspec_fullk", "fused_melspec_stats_fullk", "pghi_phases", "pghi_synthesize"):
         require(dgt_counts[k] > 0, f"kernel {k} was not launched on the DGT path")
-    log(f"  E and F by route: {spectral.routes}")
+    log(f"  E and F by route: {spectral.routes}; K's synthesis by route: {pghi_kernel.routes}")
     for k in ("fused_melspec_fullk", "fused_melspec_stats_fullk"):
         require(spectral.routes[k + ":fft"] == dgt_counts[k] and spectral.routes[k + ":product"] == 0,
                 f"{k}: the DGT path's launches must all take the FFT route")
+    require(pghi_kernel.routes["pghi_synthesize:fft"] == dgt_counts["pghi_synthesize"]
+            and pghi_kernel.routes["pghi_synthesize:product"] == 0,
+            "pghi_synthesize: the DGT path's launches must all take the FFT route")
     counts.update(spectral.routes)
+    counts.update(pghi_kernel.routes)
     counts.update({k: dgt_counts[k] for k in ("fused_melspec_fullk", "fused_melspec_stats_fullk",
                                               "pghi_phases", "pghi_synthesize")})
     require(tuple(y_dgt.shape) == (B, n_frames, N_FFT // 2 + 1), f"DGT magnitude shape {tuple(y_dgt.shape)}")
@@ -2198,7 +2409,12 @@ def main() -> int:
         f"{1e3 * (t2 - t1):.1f} ms; launches {r_counts}")
     require(r_counts["fused_repr_stats_fullk"] == 1 and r_counts["fused_spectral_repr_fullk"] == 1
             and sum(r_counts.values()) == 2, "chain R: expected one H and one G launch")
+    r_routes = {k: v for k, v in spectral.routes.items() if v}
+    log(f"  G and H by route: {r_routes}")
+    require(r_routes == {"fused_repr_stats_fullk:fft": 1, "fused_spectral_repr_fullk:fft": 1},
+            "chain R: H and G must take the FFT route")
     counts.update({k: r_counts[k] for k in ("fused_repr_stats_fullk", "fused_spectral_repr_fullk")})
+    counts.update(r_routes)
     require(tuple(y_r.shape) == (B, n_frames, 2, N_FFT // 2 + 1), f"chain R shape {tuple(y_r.shape)}")
     require(torch.isfinite(y_r).all().item(), "chain R output not finite")
     require(tuple(rec_r.shape) == (B, 1, HOP * (n_frames - 1)) and torch.isfinite(rec_r).all().item(),
@@ -2446,7 +2662,6 @@ def main() -> int:
     # on the same clips, counted in phase 4h.
     kw_e = dict(mel_bank=None, offset=dgt_fit[2].norm.offset, scale=dgt_fit[2].norm.scale,
                 contrast="log1p", taps=None, window=dgt_f.window)
-    fullk_flops = 4.0 * B * Tn * N_FFT * F                   # the full-K product (G and H full-K below)
     e_need = fft_flops + B * Tn * (N_FFT + 7.0 * F)
     n_fft_p, hop_p = 768, 256                                # the product route's shape
     Tp, Fp = 1 + L // hop_p, n_fft_p // 2 + 1
@@ -2473,10 +2688,26 @@ def main() -> int:
     # two scans are some 150 operations per bin
     phases_bound = bound_of(4.0 * n_el * (2.0 + silent), 150.0 * n_el)
     # synthesis: magnitudes and phases read, the overlap-add signal written;
-    # an inverse FFT per frame, sincos and the products per bin, the window
+    # an inverse FFT per frame, sincos and the products per bin, the window.
+    # Its FFT route runs, per block of R output chunks, frames_irfft of R + 2
+    # overlap frames (fft_design_flops: the pack in place of the split, the
+    # window in place of the windowing), sincos and two products per bin (22)
+    # and one addition per sample; the product route (768/256 here, on the
+    # same clips) the product of 2F terms per sample and overlap.
     synth_need = fft_flops + B * Tn * (40.0 * F + 2.0 * N_FFT)
     synth_bound = bound_of(8.0 * n_el + 4.0 * n_audio, synth_need)
-    synth_flops = 2.0 * n_audio * ov * 2.0 * F               # the product this design runs
+    k_rows, _ = pghi_kernel._synth_fft_plan(N_FFT, HOP)
+    k_blocks = B * -(-(Tn + ov - 1) // k_rows)
+    synth_flops = (fft_design_flops(N_FFT, k_blocks * (k_rows + 2 * ov)) + 22.0 * n_el
+                   + float(B * Tn * N_FFT))
+    ov_p = n_fft_p // hop_p
+    n_audio_p = float(B * (Tp + ov_p - 1) * hop_p)
+    kp_target = att.ops.stft(mono, n_fft_p, hop_p, w_p).abs()
+    kp_phases = 2 * math.pi * torch.rand(kp_target.shape, device=dev,
+                                         generator=torch.Generator(device=dev).manual_seed(args.seed + 22))
+    w_p_inv = dgt_f.inv_window if n_fft_p == N_FFT else T.DGT(n_fft=n_fft_p, hop_length=hop_p).inv_window
+    synth_bound_p = bound_of(8.0 * el_p + 4.0 * n_audio_p, fft_p + B * Tp * (40.0 * Fp + 2.0 * n_fft_p))
+    synth_flops_p = 2.0 * n_audio_p * ov_p * 2.0 * Fp + 22.0 * el_p    # the product this route runs
 
     def lib_dgt_spec(x):
         return torch.stft(x, N_FFT, HOP, window=dgt_f.window, center=True, pad_mode="reflect",
@@ -2489,6 +2720,9 @@ def main() -> int:
     def lib_istft():
         return torch.istft(torch.polar(dgt_target, k_phases).transpose(-2, -1), N_FFT, HOP,
                            window=dgt_f.inv_window)
+
+    def lib_istft_p():
+        return torch.istft(torch.polar(kp_target, kp_phases).transpose(-2, -1), n_fft_p, hop_p, window=w_p_inv)
 
     def whole_inversion():
         return pghi_kernel.pghi_invert_fused(dgt_target, gamma, N_FFT, HOP, dgt_f.inv_window,
@@ -2546,12 +2780,19 @@ def main() -> int:
              plain=lambda: pghi_kernel.pghi_phases_fused_reference(
                  dgt_target, gamma, N_FFT, HOP, tolerance=dgt_f.tolerance, angles=k_angles),
              plain_once=True, library=None, bound=phases_bound, ceiling=ceiling_of(150.0 * n_el)),
-        dict(key="K_synth", name="pghi_synthesize", source=pghi_src, replaces=pghi_tpu,
-             launches=counts["pghi_synthesize"],
+        dict(key="K_synth", name="pghi_synthesize", source=pghi_src + " (+ csrc/fft_smem.cuh)", replaces=pghi_tpu,
+             front_end="fft", launches=counts["pghi_synthesize:fft"],
              run=lambda: pghi_kernel.pghi_synthesize_fused(dgt_target, k_phases, N_FFT, HOP, dgt_f.inv_window),
              plain=lambda: pghi_kernel.pghi_synthesize_fused_reference(
                  dgt_target, k_phases, N_FFT, HOP, dgt_f.inv_window),
-             library=lib_istft, bound=synth_bound, ceiling=ceiling_of(synth_flops + 40.0 * n_el)),
+             library=lib_istft, bound=synth_bound, ceiling=ceiling_of(synth_flops)),
+        dict(key="K_synth_product", name="pghi_synthesize_product", front_end="product",
+             source=pghi_src + " (+ csrc/synth_ola.cuh)", replaces=pghi_tpu,
+             launches=counts["pghi_synthesize:product"],
+             run=lambda: pghi_kernel.pghi_synthesize_fused(kp_target, kp_phases, n_fft_p, hop_p, w_p_inv),
+             plain=lambda: pghi_kernel.pghi_synthesize_fused_reference(
+                 kp_target, kp_phases, n_fft_p, hop_p, w_p_inv),
+             library=lib_istft_p, bound=synth_bound_p, ceiling=ceiling_of(synth_flops_p)),
     ]
     # ---- the representation kernels.  G computes the Polar / PolarIF
     # forward: what A and E need plus, per bin, an atan2 (about 20
@@ -2603,6 +2844,31 @@ def main() -> int:
     def lib_stats_polarif():
         return lib_repr_stats(torch.stft(mono, N_FFT, HOP, window=dgt_f.window, center=True,
                                          pad_mode="reflect", return_complex=True).transpose(-2, -1), "if")
+
+    # G and H full-K on the FFT route: per block of tile_t frames, frames_rfft
+    # of the tile and the IF's two halo frames (fft_design_flops), then the
+    # epilogue per bin; H writes (n_blocks, 8, F) partials that a second
+    # kernel reads back (not the function's bytes: reported beside the row).
+    # Their product rows at 768/256 on the same clips (phase 4h's launches).
+    g_tile, _ = spectral._repr_plan(N_FFT, HOP, None, False, "if", True)
+    h_tile, _ = spectral._repr_plan(N_FFT, HOP, None, True, "if", False)
+    g_frames = B * -(-Tn // g_tile) * (g_tile + 2)
+    h_blocks = B * -(-Tn // h_tile)
+    h_partials_ms = 1e3 * 2.0 * 4 * h_blocks * 8 * F / PEAK_BYTES_PER_S
+    bank_rp = T.Magnitude(mode="bipolar", n_fft=n_fft_p).mel_bank
+    nnz_rp = int((bank_rp != 0).sum().item())
+    kw_gkp = dict(kw_gk, mel_bank=bank_rp, window=w_p)
+    gif_need_p = fft_p + B * Tp * (n_fft_p + 7.0 * Fp + 2.0 * nnz_rp + 22.0 * Fp) + 8.0 * el_p
+    hif_need_p = fft_p + B * Tp * (n_fft_p + 5.0 * Fp + 20.0 * Fp + 16.0 * Fp) + 8.0 * el_p
+
+    def stft_p():
+        return torch.stft(mono, n_fft_p, hop_p, window=w_p, center=True, pad_mode="reflect",
+                          return_complex=True).transpose(-2, -1)
+
+    def lib_polarif_p():
+        S = stft_p()
+        y1 = (torch.log1p(torch.matmul(S.abs(), bank_rp)) - aff_r[0]) / aff_r[1]
+        return y1, (lib_if(S) - aff_r[2]) / aff_r[3]
 
     # I: the projection at the log-mel chain's shape (no main-path caller).
     # Bytes: magnitudes and angles read, the projection written (5 arrays);
@@ -2666,13 +2932,20 @@ def main() -> int:
              plain=lambda: spectral.fused_spectral_repr_reference(mono, N_FFT, HOP, "phase", **kw_g),
              library=lib_polar, bound=bound_of(4.0 * B * L + 8.0 * n_el, g_need),
              ceiling=ceiling_of(chunk_flops + combine_flops + 2.0 * B * Tn * nnz_r + 30.0 * n_el)),
-        dict(key="G_fk", name="fused_spectral_repr_fullk", source=spectral_src,
-             replaces="acids_transforms_tpu/ops/pallas/spectral.py:851",
-             launches=counts["fused_spectral_repr_fullk"],
+        dict(key="G_fk", name="fused_spectral_repr_fullk", source=spectral_src + " (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:851", front_end="fft",
+             launches=counts["fused_spectral_repr_fullk:fft"],
              run=lambda: spectral.fused_spectral_repr(mono, N_FFT, HOP, "if", **kw_gk),
              plain=lambda: spectral.fused_spectral_repr_reference(mono, N_FFT, HOP, "if", **kw_gk),
              library=lib_polarif, bound=bound_of(4.0 * B * L + 8.0 * n_el, gif_need),
-             ceiling=ceiling_of(fullk_flops * (Tn + 1) / Tn + 2.0 * B * Tn * nnz_r + 38.0 * n_el)),
+             ceiling=ceiling_of(fft_design_flops(N_FFT, g_frames) + 2.0 * B * Tn * nnz_r + 38.0 * n_el)),
+        dict(key="G_fk_product", name="fused_spectral_repr_fullk_product", source=spectral_src,
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:851", front_end="product",
+             launches=counts["fused_spectral_repr_fullk:product"],
+             run=lambda: spectral.fused_spectral_repr(mono, n_fft_p, hop_p, "if", **kw_gkp),
+             plain=lambda: spectral.fused_spectral_repr_reference(mono, n_fft_p, hop_p, "if", **kw_gkp),
+             library=lib_polarif_p, bound=bound_of(4.0 * B * L + 8.0 * el_p, gif_need_p),
+             ceiling=ceiling_of(fullk_p * (Tp + 1) / Tp + 2.0 * B * Tp * nnz_rp + 38.0 * el_p)),
         dict(key="H", name="fused_repr_stats", source=spectral_src,
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:938",
              launches=counts["fused_repr_stats"],
@@ -2680,14 +2953,22 @@ def main() -> int:
              plain=lambda: spectral.fused_repr_stats_reference(mono, N_FFT, HOP, "phase", taps=taps_main),
              library=lib_stats_polar, bound=bound_of(4.0 * B * L, h_need),
              ceiling=ceiling_of(chunk_flops + combine_flops + 36.0 * n_el)),
-        dict(key="H_fk", name="fused_repr_stats_fullk", source=spectral_src,
-             replaces="acids_transforms_tpu/ops/pallas/spectral.py:916",
-             launches=counts["fused_repr_stats_fullk"],
+        dict(key="H_fk", name="fused_repr_stats_fullk", source=spectral_src + " (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:916", front_end="fft",
+             launches=counts["fused_repr_stats_fullk:fft"],
              run=lambda: spectral.fused_repr_stats(mono, N_FFT, HOP, "if", taps=None, window=dgt_f.window),
              plain=lambda: spectral.fused_repr_stats_reference(mono, N_FFT, HOP, "if", taps=None,
                                                                window=dgt_f.window),
              library=lib_stats_polarif, bound=bound_of(4.0 * B * L, hif_need),
-             ceiling=ceiling_of(fullk_flops * (Tn + 1) / Tn + 44.0 * n_el)),
+             ceiling=ceiling_of(fft_design_flops(N_FFT, h_blocks * (h_tile + 2)) + 44.0 * n_el),
+             extra=dict(partials_bytes_ms=h_partials_ms)),
+        dict(key="H_fk_product", name="fused_repr_stats_fullk_product", source=spectral_src,
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:916", front_end="product",
+             launches=counts["fused_repr_stats_fullk:product"],
+             run=lambda: spectral.fused_repr_stats(mono, n_fft_p, hop_p, "if", taps=None, window=w_p),
+             plain=lambda: spectral.fused_repr_stats_reference(mono, n_fft_p, hop_p, "if", taps=None, window=w_p),
+             library=lambda: lib_repr_stats(stft_p(), "if"), bound=bound_of(4.0 * B * L, hif_need_p),
+             ceiling=ceiling_of(fullk_p * (Tp + 1) / Tp + 44.0 * el_p)),
         dict(key="I", name="gl_project", source="acids_transforms_tpu_torch/csrc/glstep.cu",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:236",
              launches=counts["gl_project"],
@@ -2995,15 +3276,17 @@ def main() -> int:
                    library_single_call_ms=l_single)
         if "front_end" in s:
             row["front_end"] = s["front_end"]
+        row.update(s.get("extra", {}))
         kernels.append(row)
         front = f" [{s['front_end']} route]" if "front_end" in s else ""
         ratio = "" if l_ms is None else f", {k_ms / l_ms:.2f}x the library"
         single = f"; one call alone {k_single:.3f} ms" + (
             "" if l_single is None else f", the library's {l_single:.3f} ms")
+        extra = "".join(f"; {k} {v:.3f}" for k, v in s.get("extra", {}).items())
         log(f"  {s['key']} {s['name']}{front}: {k_ms:.3f} ms, plain {row['plain_ms']:.3f} ms, "
             f"library {'none' if l_ms is None else format(l_ms, '.3f') + ' ms'}{ratio}, bound {b_ms:.3f} ms by "
             f"{b_by} ({100 * b_ms / k_ms:.1f}% of it reached); fp32 ceiling of this design "
-            f"{s['ceiling']:.3f} ms ({100 * s['ceiling'] / k_ms:.1f}%){single}")
+            f"{s['ceiling']:.3f} ms ({100 * s['ceiling'] / k_ms:.1f}%){single}{extra}")
 
     # O's host share: a projection's two launches enqueued back to back
     # behind a sleep kernel, so that the card never waits for the host while

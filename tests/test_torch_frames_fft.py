@@ -186,5 +186,7 @@ def test_no_route_counted_on_the_cpu():
                               "session_roundtrip:fft", "session_roundtrip:product",
                               "session_random_roundtrip:fft", "session_random_roundtrip:product"}
     assert set(SP.routes) == {"fused_melspec_fullk:fft", "fused_melspec_fullk:product",
-                              "fused_melspec_stats_fullk:fft", "fused_melspec_stats_fullk:product"}
+                              "fused_melspec_stats_fullk:fft", "fused_melspec_stats_fullk:product",
+                              "fused_spectral_repr_fullk:fft", "fused_spectral_repr_fullk:product",
+                              "fused_repr_stats_fullk:fft", "fused_repr_stats_fullk:product"}
 
