@@ -22,6 +22,12 @@
 //       _session_kernel (L) and _session_random_kernel (M): frames_roundtrip
 //   pghi.cu:pghi_synthesize_fft_kernel             <- ops/pallas/pghi_kernel.py:
 //       _pghi_invert_kernel's synthesis (K): frames_irfft
+//   glstep.cu:gl_step_fft_kernel                   <- ops/pallas/glstep.py:
+//       _gl_kernel_momentum (C), _gl_kernel_momentum_chain (D), _gl_kernel (I):
+//       frames_irfft, then frames_rfft
+//   stream_step.cu:session_decode_fft_kernel       <- ops/pallas/stream_step.py:
+//       _session_random_invert_kernel (P), _session_complex_invert_kernel (S),
+//       the synthesis of _session_pghi_gl_kernel's projection (O): frames_irfft
 //
 // What they compute.  frames_rfft: X_r[k] = sum_n w[n] xs[r hop + n] e^{-2 pi
 // i n k / n} for k <= n / 2 of every frame r < n_frames of a sample buffer

@@ -5,6 +5,8 @@
 //   gl_step_kernel, chain >= 2  <- _gl_kernel_momentum_chain  (via _gl_call, iters=k)
 //   gl_step_kernel, project     <- _gl_kernel                 (via gl_project): the
 //                                  consistency projection alone, no momentum
+//   gl_step_fft_kernel          <- the same three where n_fft is a power of two
+//                                  from 64 to 4096 (the FFT route, below)
 //
 // One iteration: Y = taps_conv(mag * angles); D[c] = sum_j conj(tw_j) Y[c - j];
 // samples[c] = [Dre | Dim] @ [ICT; IST] / envelope[c]; C = samples @ [cos | -sin];
@@ -45,9 +47,42 @@
 // and the staged operands fill shared memory), so latency is hidden by
 // instruction-level parallelism only; chaining recomputes the halo, which
 // costs operations, the very thing this design is short of.
+//
+// Two routes, chosen by n_fft alone (fft_covers, as the wrapper's
+// glstep._step_plan): the chunk products above (gl_step_kernel) for every
+// n_fft that is no power of two from 64 to 4096 (768, 1200, 8192, ...), and
+// the FFT route (gl_step_fft_kernel) for those that are.  The FFT route:
+// * the same function, with the window in the time domain: frames_irfft of
+//   mag * angles under window / n_fft (fft_smem.cuh), then the overlap-add
+//   in class order, the envelope division, the in-place re-framing of the
+//   un-trimmed signal and frames_rfft under the window, the update.  The
+//   product reads Im(bin 0) through the taps conv, which irfft does not: that
+//   term is added unwindowed to every sample of a frame, Im(Y_0) times the
+//   table -(2 / n) sum_{p >= 1} taps[p] sin(2 pi p i / n) (the oracle's
+//   "leak"); nyquist's imaginary part stays dropped;
+// * a block owns one batch row and tile_t frames t0 .. (tile_t a multiple of
+//   2 overlap, so t0 starts a pair group of the whole clip), its samples the
+//   chunks t0 .. t0 + tile_t + overlap - 2, and synthesizes the frames t0 -
+//   overlap .. t0 + tile_t + overlap - 1 paired (f, f + overlap) for f mod 2
+//   overlap >= overlap, as J does: no frame's rounding depends on its block;
+// * a chain of `chain` iterations is one cooperative launch of at most as
+//   many blocks as the card holds at once, each walking tiles in a strided
+//   loop, a barrier across the grid between iterations; the state between
+//   iterations goes through device memory (the outputs and one scratch set,
+//   in turns, read through L2), so every iteration is one step over the
+//   whole clip and the chain equals `chain` single steps bit for bit.  No
+//   halo is recomputed: a halo that shrinks by overlap - 1 frames an
+//   iteration would move the pair grid, and at 1024/256 a chain of 4 would
+//   leave a two-blocks-an-SM tile of 8 frames for 48 frames of halo;
+// * what bounds it: as J, bytes against an inverse and a forward FFT a frame;
+//   what holds it back, shared-memory passes and barriers, and the halo
+//   frames' synthesis done again by the neighbouring block.  Every operation
+//   is rounded on its own (__fmul_rn, ...), so the plain version
+//   (ops/cuda/glstep.py:_project_fft) repeats it.
 #include <math.h>
 
 #include "dft_common.cuh"
+#include "fft_smem.cuh"
 
 namespace att {
 
@@ -349,6 +384,157 @@ static size_t gl_smem_bytes(int tile_t, int chain, int overlap, int hop) {
     return ((size_t)gl_sample_rows(tile_t, chain, overlap) * hop + work) * sizeof(float);
 }
 
+// ------------------------------------------------------------ the FFT route
+struct GlFftArgs {
+    const float* mag;     // (B, T, F)
+    const float* are;     // angles in
+    const float* aim;
+    const float* tre;     // previous projection in (not read by the projection alone)
+    const float* tim;
+    const float* env;     // (T + overlap - 1, hop), > 0
+    const float* win;     // (n_fft,) analysis window
+    const float* wsyn;    // (n_fft,) synthesis window / n_fft
+    const float* leak;    // (n_fft,) -(2 / n_fft) sum_{p >= 1} taps[p] sin(2 pi p i / n_fft)
+    const float* fft_tw;  // (2, n_fft) twiddle table
+    float* nare;          // outputs (B, T, F) (nare, naim unused by the projection alone)
+    float* naim;
+    float* rre;
+    float* rim;
+    float* scratch;          // chain >= 2: (4, B, T, F), the state of every other iteration
+    unsigned int* barrier;   // chain >= 2: the grid barrier's two counters, zeroed
+    long long B;
+    int T, F, hop, overlap, tile_t, n_tiles, teams, chain, project;
+    float mom;
+};
+
+// The samples of tile_t + overlap - 1 chunks, frames_rfft's area (window,
+// twiddles, teams' buffers), the synthesis window, the leak table, and one
+// leak factor Im(Y_0) per synthesized frame.
+__host__ __device__ inline size_t gl_fft_smem_floats(int tile_t, int overlap, int hop, int teams) {
+    const int n = overlap * hop;
+    return (size_t)(tile_t + overlap - 1) * hop + fft_smem_floats(n, teams) + 2 * (size_t)n +
+           (size_t)tile_t + 2 * overlap;
+}
+
+// A barrier across all blocks of a cooperative launch (every block resident):
+// bar[0] counts arrivals, bar[1] is the generation.  A block that waits on
+// the order of ten seconds traps, so a launch that lost residency fails
+// instead of hanging the card.
+__device__ void gl_grid_sync(unsigned int* bar) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        volatile unsigned int* gen_p = bar + 1;
+        const unsigned int gen = *gen_p;
+        __threadfence();
+        if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+            atomicExch(bar, 0u);
+            __threadfence();
+            atomicAdd(bar + 1, 1u);
+        } else {
+            unsigned int spins = 0;
+            while (*gen_p == gen) {
+                __nanosleep(64);
+                if (++spins == (1u << 27)) __trap();
+            }
+        }
+        __threadfence();
+    }
+    __syncthreads();
+}
+
+// C, D and I on the FFT route (see the note at the top).  Iteration it reads
+// the inputs (it = 0) or iteration it - 1's state and writes the outputs when
+// chain - 1 - it is even, the scratch set otherwise; state written during the
+// launch is read with __ldcg (L2), never through L1 or the read-only path.
+__global__ void __launch_bounds__(kThreads, 2) gl_step_fft_kernel(GlFftArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    const int T = a.T, F = a.F, hop = a.hop, ov = a.overlap;
+    const int n = ov * hop;
+    const int R = a.tile_t + ov - 1;  // chunks of samples a tile holds
+    float* samples = smem;            // [R][hop]
+    const FftSmem fs = carve_fft(samples + (size_t)R * hop, n);
+    float* wsyn = fs.buf + (size_t)a.teams * fft_buf_floats(n);
+    float* leak = wsyn + n;
+    float* lam = leak + n;            // [tile_t + 2 overlap]
+    fft_stage(a.win, a.fft_tw, fs, n);
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+        wsyn[i] = __ldg(a.wsyn + i);
+        leak[i] = __ldg(a.leak + i);
+    }
+    const size_t plane = (size_t)a.B * T * F;
+    const long long n_work = a.B * a.n_tiles;
+    const float mom = a.mom;
+    // this iteration's state in (s_*) and out (d_*)
+    const float *s_are = a.are, *s_aim = a.aim, *s_tre = a.tre, *s_tim = a.tim;
+    for (int it = 0; it < a.chain; ++it) {
+        const bool to_out = ((a.chain - 1 - it) & 1) == 0;
+        float* d_are = to_out ? a.nare : a.scratch;
+        float* d_aim = to_out ? a.naim : a.scratch + plane;
+        float* d_rre = to_out ? a.rre : a.scratch + 2 * plane;
+        float* d_rim = to_out ? a.rim : a.scratch + 3 * plane;
+        if (it > 0) gl_grid_sync(a.barrier);
+        for (long long wk = blockIdx.x; wk < n_work; wk += gridDim.x) {
+            const long long b = wk / a.n_tiles;
+            const int t0 = (int)(wk - b * a.n_tiles) * a.tile_t;
+            const size_t bofs = (size_t)b * T * F;
+            const int f0 = t0 - ov;  // local frame r is frame f0 + r
+            const int n_fr = min(a.tile_t + 2 * ov, T - f0);
+            // the previous tile's frames_rfft ended with a barrier
+            for (int i = threadIdx.x; i < R * hop; i += kThreads) samples[i] = 0.0f;
+            for (int r = threadIdx.x; r < n_fr; r += kThreads) {
+                const int f = f0 + r;
+                const size_t o = bofs + (size_t)f * F;
+                lam[r] = f >= 0 ? __fmul_rn(__ldg(a.mag + o), __ldcg(s_aim + o)) : 0.0f;
+            }
+            // frames_irfft starts with a barrier and ends with one
+            frames_irfft(
+                n_fr, ov, n, fs, wsyn, a.teams,
+                [&](int r, int k, float& re, float& im) {
+                    const int f = f0 + r;
+                    if (f < 0) {
+                        re = 0.0f;
+                        im = 0.0f;
+                        return;
+                    }
+                    const size_t o = bofs + (size_t)f * F + k;
+                    const float mg = __ldg(a.mag + o);
+                    re = __fmul_rn(mg, __ldcg(s_are + o));
+                    im = __fmul_rn(mg, __ldcg(s_aim + o));
+                },
+                [&](int r, int i, float v) {
+                    const int f = f0 + r;
+                    const int pos = (f - t0) * hop + i;
+                    if (f >= 0 && pos >= 0 && pos < R * hop) {
+                        samples[pos] = __fadd_rn(samples[pos], __fadd_rn(v, __fmul_rn(lam[r], leak[i])));
+                    }
+                });
+            for (int i = threadIdx.x; i < R * hop; i += kThreads) {
+                const int q = i / hop;
+                const int c = t0 + q;  // chunk of the un-trimmed signal
+                if (c < T + ov - 1) samples[i] = __fdiv_rn(samples[i], __ldg(a.env + (size_t)c * hop + (i - q * hop)));
+            }
+            // frames_rfft starts with a barrier and ends with one
+            frames_rfft(samples, min(a.tile_t, T - t0), hop, n, fs, a.teams,
+                        [&](int r, int k, float r_re, float r_im) {
+                            const size_t o = bofs + (size_t)(t0 + r) * F + k;
+                            d_rre[o] = r_re;
+                            d_rim[o] = r_im;
+                            if (a.project) return;
+                            const float ure = __fsub_rn(r_re, __fmul_rn(mom, __ldcg(s_tre + o)));
+                            const float uim = __fsub_rn(r_im, __fmul_rn(mom, __ldcg(s_tim + o)));
+                            const float nrm = fmaxf(
+                                __fsqrt_rn(__fadd_rn(__fmul_rn(ure, ure), __fmul_rn(uim, uim))), 1e-16f);
+                            d_are[o] = __fdiv_rn(ure, nrm);
+                            d_aim[o] = __fdiv_rn(uim, nrm);
+                        });
+        }
+        s_are = d_are;
+        s_aim = d_aim;
+        s_tre = d_rre;
+        s_tim = d_rim;
+    }
+}
+
 }  // namespace att
 
 extern "C" {
@@ -414,6 +600,68 @@ int att_gl_project(const float* mag, const float* are, const float* aim, const f
     return gl_launch(mag, are, aim, nullptr, nullptr, env, B, T, F, hop, overlap, bcos, bsin, ict,
                      ist, twr, twi, taps_host, P, 0.0f, 1, tile_t, 1, nullptr, nullptr, rre, rim,
                      nullptr, stream);
+}
+
+// Shared memory of one block of the FFT route: tile_t frames, `teams` FFTs
+// side by side.
+long long att_gl_fft_smem_bytes(int tile_t, int overlap, int hop, int teams) {
+    return (long long)(att::gl_fft_smem_floats(tile_t, overlap, hop, teams) * sizeof(float));
+}
+
+// Kernels C (chain 1), D (chain >= 2) and I (project = 1, chain 1) on the FFT
+// route.  Spectrogram arrays (B, T, F) float32 contiguous, outputs not
+// aliasing inputs; env (T + overlap - 1, hop); n_fft = overlap hop a power of
+// two from 64 to 4096, F = n_fft / 2 + 1; window, wsyn and leak (n_fft,) (the
+// window, the window / n_fft, -(2 / n_fft) sum_{p >= 1} taps[p] sin(2 pi p i /
+// n_fft)), fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft); 1 <= teams <= 4096
+// / n_fft; tile_t a multiple of 2 overlap.  chain >= 2 needs scratch (4, B,
+// T, F) and barrier (two unsigned ints, zeroed here on the stream) and is a
+// cooperative launch of at most as many blocks as the card holds at once.
+// project = 1: tre, tim, nare and naim are not used.  Returns a cudaError_t.
+int att_gl_step_fft(const float* mag, const float* are, const float* aim, const float* tre,
+                    const float* tim, const float* env, const float* window, const float* wsyn,
+                    const float* leak, const float* fft_tw, long long B, int T, int F, int hop,
+                    int overlap, int tile_t, int teams, float mom, int chain, int project,
+                    float* nare, float* naim, float* rre, float* rim, float* scratch,
+                    unsigned int* barrier, void* stream) {
+    using namespace att;
+    const int n_fft = overlap * hop;
+    if (B < 1 || T < 1 || overlap < 2 || !fft_covers(n_fft) || F != n_fft / 2 + 1 || teams < 1 ||
+        teams > fft_max_teams(n_fft) || tile_t < 1 || tile_t % (2 * overlap) != 0 || chain < 1 ||
+        (chain >= 2 && (scratch == nullptr || barrier == nullptr)) || (project && chain != 1)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    GlFftArgs a = {};
+    a.mag = mag; a.are = are; a.aim = aim; a.tre = tre; a.tim = tim; a.env = env;
+    a.win = window; a.wsyn = wsyn; a.leak = leak; a.fft_tw = fft_tw;
+    a.nare = nare; a.naim = naim; a.rre = rre; a.rim = rim; a.scratch = scratch; a.barrier = barrier;
+    a.B = B; a.T = T; a.F = F; a.hop = hop; a.overlap = overlap; a.tile_t = tile_t;
+    a.n_tiles = (T + tile_t - 1) / tile_t; a.teams = teams; a.chain = chain; a.project = project;
+    a.mom = mom;
+    const size_t smem = gl_fft_smem_floats(tile_t, overlap, hop, teams) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(gl_step_fft_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const long long n_work = B * a.n_tiles;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (chain == 1) {
+        gl_step_fft_kernel<<<(unsigned)n_work, kThreads, smem, s>>>(a);
+        return (int)cudaGetLastError();
+    }
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gl_step_fft_kernel, kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const long long resident = (long long)per_sm * sms;
+    const unsigned grid = (unsigned)(n_work < resident ? n_work : resident);
+    if ((err = cudaMemsetAsync(barrier, 0, 2 * sizeof(unsigned int), s)) != cudaSuccess) return (int)err;
+    void* params[] = {&a};
+    err = cudaLaunchCooperativeKernel((const void*)gl_step_fft_kernel, dim3(grid), dim3(kThreads), params,
+                                      smem, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
 }
 
 }  // extern "C"

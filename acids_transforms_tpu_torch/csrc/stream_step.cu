@@ -13,6 +13,9 @@
 //                                       also the synthesis of the RT-PGHI sessions N and Q, with
 //                                       the recurrence's phases as its angles)
 //   session_decode_kernel<., true>   <- _session_complex_invert_kernel (make_fused_complex_invert)
+//   session_decode_fft_kernel<false / true>
+//                                    <- the same two (and O's projection synthesis) where
+//                                       n_fft is a power of two from 64 to 4096 (the FFT route)
 //   gl_project_analysis_kernel       <- the projection of _session_pghi_gl_kernel (O), its
 //                                       analysis and atan2; with session_decode_kernel<., false>
 //                                       as its synthesis and pghi.cu's recurrence (seeded) as
@@ -44,7 +47,10 @@
 // of the session's angles, read in), then the synthesis product of
 // synth_ola.cuh over those rows, with the synthesis window and the 1 / gain of
 // OverlapAdd folded into its basis.  Decode: the rows are mag * (cos, sin)
-// (angle) of the input, then the same synthesis.
+// (angle) of the input, then the same synthesis; where fft_covers(n_fft),
+// fft_smem.cuh:frames_irfft of the input spectra instead (the FFT route:
+// session_decode_fft_kernel, the synthesis half of the roundtrips' FFT route,
+// sincosf and two products a bin, no basis).
 //
 // What bounds them on this card: the functions are bound by bytes (an FFT
 // per frame is 2.5 n_fft log2 n_fft operations, far below the fp32 ridge of
@@ -78,7 +84,8 @@
 // whole batch of sessions: one seeded recurrence launch (pghi.cu), then per
 // Griffin-Lim iteration two launches over the extended grid of gl_context +
 // T_c + lookahead frames, P's synthesis into the grid's overlap-add signal
-// (blocks of 8 hop chunks, so that a session fills several SMs) and
+// (narrow blocks, 8 hop chunks at 1024/256, so that a session fills several
+// SMs) and
 // gl_project_analysis_kernel (blocks of one session and one 128-bin tile); the
 // commit and the carries are a few small tensor operations, and P's synthesis
 // of every committed frame ends the session.  The phases of the grid stay in
@@ -473,6 +480,74 @@ __global__ void __launch_bounds__(kThreads) session_decode_kernel(SessionArgs a)
     synth_ola_tile<kRPT, kSumFold>(S, stage, a.syn, Kp, a.hop, a.overlap, j0, j_end, a.out + (size_t)b * T * a.hop);
 }
 
+// The decode's FFT route: the rows chunks of output, then frames_irfft's
+// area, whose window slot holds wsyn.
+__host__ __device__ inline size_t decode_fft_smem_floats(int rows, int hop, int n, int teams) {
+    return (size_t)rows * hop + fft_smem_floats(n, teams);
+}
+
+// P (kComplex = false), S and O's projection synthesis on the FFT route
+// (n_fft a power of two from 64 to 4096): the synthesis half of
+// session_roundtrip_fft_kernel, fed from the input spectra.  A block owns
+// `rows` output chunks j0 .. j_end - 1 of one stream (rows a multiple of 2
+// overlap) and runs frames_irfft over the frames j0 - (overlap - 1) .. (local
+// frame r is frame j0 - (overlap - 1) + r, rows + 2 overlap of them at most,
+// paired (f, f + overlap) for (f + overlap - 1) mod 2 overlap < overlap: the
+// pairing of the whole session, so no frame's rounding depends on its block).
+// Frames before 0 load zero bins and add nothing; frame f's bins are mag *
+// (cos, sin)(angle) from one full-range sincosf, each product rounded on its
+// own, or S's (re, im) as they are (the imaginary parts at DC and nyquist not
+// read, as the product basis does not read them).  The frames are added into
+// the block's output chunks in class order (f + overlap - 1) mod overlap and
+// the chunks stored.  wsyn = the synthesis window / gain / n_fft.
+template <bool kComplex>
+__global__ void __launch_bounds__(kThreads, 2) session_decode_fft_kernel(SessionArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    const int m = a.overlap - 1, F = a.F, hop = a.hop, ov = a.overlap, T = a.T;
+    const int n = ov * hop;
+    const long long blk = blockIdx.x;
+    const long long b = blk / a.n_tiles;
+    const int j0 = (int)(blk - b * a.n_tiles) * a.rows;
+    const int j_end = min(T, j0 + a.rows);
+    const int n_frames = min(a.rows + 2 * ov, T + m - j0);
+    float* out = smem;  // [rows][hop]
+    const FftSmem fs = carve_fft(out + (size_t)a.rows * hop, n);
+    fft_stage(a.wsyn, a.fft_tw, fs, n);  // wsyn in the window's slot
+    for (int i = threadIdx.x; i < a.rows * hop; i += kThreads) out[i] = 0.0f;
+    const int f0 = j0 - m;
+    const float* mag = a.mag + (size_t)b * T * F;
+    const float2* spec = reinterpret_cast<const float2*>(a.mag) + (size_t)b * T * F;
+    const float* ang = kComplex ? nullptr : a.angles + (size_t)b * a.Ta * F;
+    const int n_out = (j_end - j0) * hop;
+    // frames_irfft starts with a barrier and ends with one
+    frames_irfft(
+        n_frames, ov, n, fs, fs.win, a.teams,
+        [&](int r, int k, float& re, float& im) {
+            const int f = f0 + r;
+            if (f < 0) {
+                re = 0.0f;
+                im = 0.0f;
+            } else if constexpr (kComplex) {
+                const float2 v = __ldg(spec + (size_t)f * F + k);
+                re = v.x;
+                im = v.y;
+            } else {
+                const float mg = __ldg(mag + (size_t)f * F + k);
+                float sn, cs;
+                sincosf(__ldg(ang + (size_t)f * F + k), &sn, &cs);
+                re = __fmul_rn(mg, cs);
+                im = __fmul_rn(mg, sn);
+            }
+        },
+        [&](int r, int i, float v) {
+            const int f = f0 + r;
+            const int pos = (f - j0) * hop + i;
+            if (f >= 0 && pos >= 0 && pos < n_out) out[pos] = __fadd_rn(out[pos], v);
+        });
+    float* dst = a.out + (size_t)b * T * hop + (size_t)j0 * hop;
+    for (int i = threadIdx.x; i < n_out; i += kThreads) dst[i] = out[i];
+}
+
 // O's projection, analysis half (the synthesis half is P's kernel with the
 // basis divided by overlap instead of the OverlapAdd gain).  y (B, Ly) holds
 // each session's overlap-add of its extended grid's frames; grid frame f is
@@ -539,6 +614,10 @@ long long att_session_roundtrip_fft_smem_bytes(int rows, int overlap, int hop, i
 
 long long att_session_decode_smem_bytes(int rows, int overlap, int Kp) {
     return (long long)(att::decode_smem_floats(rows, overlap, Kp) * sizeof(float));
+}
+
+long long att_session_decode_fft_smem_bytes(int rows, int hop, int n_fft, int teams) {
+    return (long long)(att::decode_fft_smem_floats(rows, hop, n_fft, teams) * sizeof(float));
 }
 
 // Kernel R (magnitude = 0) and the magnitude encode.  x (B, L) float32; out
@@ -653,26 +732,48 @@ int att_session_roundtrip(const float* x, const float* angles, const float* wc, 
     return (int)cudaGetLastError();
 }
 
-// Kernels P and S (angles == nullptr).  mag (B, T, F), or for S the complex
-// spectrum as (B, T, F, 2) floats; angles (B, Ta, F) with Ta >= T; syn as for
-// L; out (B, T * hop), every sample written.  rows <= 40 output chunks per
-// block.  Returns a cudaError_t.
-int att_session_decode(const float* mag, const float* angles, const float* syn, float* out,
-                       long long B, int T, int Ta, int F, int hop, int overlap, int Kp, int rows,
-                       void* stream) {
+// Kernels P and S (angles == nullptr), and O's projection synthesis.  mag
+// (B, T, F), or for S the complex spectrum as (B, T, F, 2) floats; angles (B,
+// Ta, F) with Ta >= T; out (B, T * hop), every sample written.  teams > 0
+// selects the FFT route: n_fft = overlap hop a power of two from 64 to 4096,
+// F = n_fft / 2 + 1, wsyn (n_fft,) the synthesis window / gain / n_fft, fft_tw
+// (2, n_fft) = (cos, -sin)(2 pi j / n_fft), 1 <= teams <= 4096 / n_fft, rows a
+// multiple of 2 overlap; syn and Kp are not read.  teams == 0 selects the
+// product route: syn as for L, rows <= 40 output chunks per block; wsyn and
+// fft_tw are not read.  Returns a cudaError_t.
+int att_session_decode(const float* mag, const float* angles, const float* syn, const float* wsyn,
+                       const float* fft_tw, float* out, long long B, int T, int Ta, int F, int hop,
+                       int overlap, int Kp, int rows, int teams, void* stream) {
     using namespace att;
-    if (!session_args_ok(B, T, F, hop, overlap) || Kp % kSynKC != 0 || Kp < 2 * F || rows < 1 ||
-        rows > 8 * 5 || (angles != nullptr && Ta < T)) {
+    const int n_fft = overlap * hop;
+    const bool fft = teams > 0;
+    if (!session_args_ok(B, T, F, hop, overlap) || rows < 1 || (angles != nullptr && Ta < T) ||
+        (fft && (!fft_covers(n_fft) || F != n_fft / 2 + 1 || teams > fft_max_teams(n_fft) ||
+                 rows % (2 * overlap) != 0)) ||
+        (!fft && (Kp % kSynKC != 0 || Kp < 2 * F || rows > 8 * 5))) {
         return (int)cudaErrorInvalidValue;
     }
     SessionArgs a = {};
-    a.mag = mag; a.angles = angles; a.syn = syn; a.out = out;
+    a.mag = mag; a.angles = angles; a.syn = syn; a.wsyn = wsyn; a.fft_tw = fft_tw; a.out = out;
     a.T = T; a.Ta = Ta; a.F = F; a.hop = hop; a.overlap = overlap; a.Kp = Kp; a.rows = rows;
+    a.teams = teams;
     a.n_tiles = (T + rows - 1) / rows;
-    const size_t smem = decode_smem_floats(rows, overlap, Kp) * sizeof(float);
+    const size_t smem = fft ? decode_fft_smem_floats(rows, hop, n_fft, teams) * sizeof(float)
+                            : decode_smem_floats(rows, overlap, Kp) * sizeof(float);
     dim3 grid((unsigned)(B * a.n_tiles));
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
+    if (fft) {
+#define ATT_LAUNCH_DECF(CPLX)                                                      \
+    do {                                                                           \
+        err = session_allow_smem(session_decode_fft_kernel<CPLX>, smem);           \
+        if (err != cudaSuccess) return (int)err;                                   \
+        session_decode_fft_kernel<CPLX><<<grid, kThreads, smem, s>>>(a);           \
+    } while (0)
+        if (angles == nullptr) ATT_LAUNCH_DECF(true); else ATT_LAUNCH_DECF(false);
+#undef ATT_LAUNCH_DECF
+        return (int)cudaGetLastError();
+    }
 #define ATT_LAUNCH_DEC(RPT, CPLX)                                                  \
     do {                                                                           \
         err = session_allow_smem(session_decode_kernel<RPT, CPLX>, smem);          \

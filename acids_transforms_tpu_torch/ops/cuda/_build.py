@@ -166,6 +166,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p,                         # rre, rim, stream
     ]
     lib.att_gl_project.restype = i
+    lib.att_gl_fft_smem_bytes.argtypes = [i, i, i, i]
+    lib.att_gl_fft_smem_bytes.restype = ll
+    lib.att_gl_step_fft.argtypes = [
+        p, p, p, p, p, p,                # mag, are, aim, tre, tim (or None), env
+        p, p, p, p,                      # window, wsyn, leak, fft_tw
+        ll, i, i, i, i,                  # B, T, F, hop, overlap
+        i, i, f, i, i,                   # tile_t, teams, mom, chain, project
+        p, p, p, p, p, p, p,             # nare, naim (or None), rre, rim, scratch, barrier (or None), stream
+    ]
+    lib.att_gl_step_fft.restype = i
     lib.att_gl_fullk_smem_bytes.argtypes = [i, i, i, i]
     lib.att_gl_fullk_smem_bytes.restype = ll
     lib.att_gl_fullk_fft_smem_bytes.argtypes = [i, i, i, i]
@@ -216,6 +226,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.att_session_roundtrip_fft_smem_bytes.restype = ll
     lib.att_session_decode_smem_bytes.argtypes = [i, i, i]
     lib.att_session_decode_smem_bytes.restype = ll
+    lib.att_session_decode_fft_smem_bytes.argtypes = [i, i, i, i]
+    lib.att_session_decode_fft_smem_bytes.restype = ll
     lib.att_session_encode.argtypes = [
         p, p, p, p, p, p,                # x, wc, ws (or None), window, fft_tw (or None), out
         ll, ll, i, i, i, i, i, i,        # B, L, T, F, hop, overlap, Kn, rows
@@ -230,8 +242,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     ]
     lib.att_session_roundtrip.restype = i
     lib.att_session_decode.argtypes = [
-        p, p, p, p,                      # mag (or spectrum), angles (or None), syn, out
-        ll, i, i, i, i, i, i, i, p,      # B, T, Ta, F, hop, overlap, Kp, rows, stream
+        p, p, p, p, p, p,                # mag (or spectrum), angles (or None), syn, wsyn, fft_tw (or None), out
+        ll, i, i, i, i, i, i, i,         # B, T, Ta, F, hop, overlap, Kp, rows
+        i, p,                            # teams (0: the product route), stream
     ]
     lib.att_session_decode.restype = i
     lib.att_gl_project_analysis.argtypes = [

@@ -31,7 +31,20 @@ accordingly, in the first and last frame only.
 On CUDA tensors the step launches ``csrc/glstep.cu`` (or raises); on CPU
 tensors it runs :func:`gl_momentum_step_reference`, the plain PyTorch version.
 ``gl_project`` is the projection alone (kernel I, the same source without the
-momentum update).
+momentum update).  Two routes, chosen by ``n_fft`` alone
+(``frames_fft.fft_covers``): where it is a power of two from 64 to 4096, the
+shared-memory FFT both ways (``gl_step_fft_kernel``: ``frames_irfft`` under
+the window over ``n_fft``, the overlap-add in class order, the envelope, the
+in-place re-framing, ``frames_rfft`` under the window; a chain is one
+cooperative launch with a barrier across the grid between iterations), with
+the window in the time domain, so the edge samples lose the amplified
+rounding described above; elsewhere the chunk products.  The window of the
+FFT route is the taps' own (:func:`_taps_window`), so both routes compute one
+function of the taps.  The taps conv reads the imaginary part of bin 0, which
+an inverse real FFT does not: the FFT route adds it back unwindowed to every
+sample of a frame, ``Im(Y_0)`` times :func:`_leak_table` (the oracle's
+``leak`` term).  Its plain version (:func:`_project_fft`) repeats the
+kernel's float32 operations in order.
 
 ``make_gl_momentum_step_fullk`` is the step for a window without cosine-sum
 taps (the DGT's gaussian, kernel J in ``csrc/glstep_fullk.cu``): every frame
@@ -50,8 +63,10 @@ loud first and last frames far off the target (ROADMAP Queue 3).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..fft import (
@@ -102,9 +117,14 @@ MAX_OVERLAP = 8                   # halo rows per side the kernel's tiles hold
 launches: Dict[str, int] = {
     "gl_momentum_step": 0, "gl_momentum_chain": 0, "gl_project": 0, "gl_momentum_fullk": 0,
 }
-#: the full-K step's launches by route, ``"gl_momentum_fullk:fft"`` /
-#: ``":product"`` (each also counts in ``launches``)
-routes: Dict[str, int] = {"gl_momentum_fullk:fft": 0, "gl_momentum_fullk:product": 0}
+#: launches by route, ``"<kernel>:fft"`` / ``"<kernel>:product"`` (each also
+#: counts in ``launches``)
+routes: Dict[str, int] = {
+    "gl_momentum_step:fft": 0, "gl_momentum_step:product": 0,
+    "gl_momentum_chain:fft": 0, "gl_momentum_chain:product": 0,
+    "gl_project:fft": 0, "gl_project:product": 0,
+    "gl_momentum_fullk:fft": 0, "gl_momentum_fullk:product": 0,
+}
 
 
 def reset_launches() -> None:
@@ -151,13 +171,48 @@ def gl_project_available(n_fft: int, hop_length: int, taps) -> bool:
 
 
 def gl_max_chain(n_fft: int, hop_length: int, want: int) -> int:
-    """The longest chain ``<= want`` whose window (tile plus the halo of
-    ``chain * (overlap - 1)`` frames per side) fits shared memory, at least 1."""
+    """The longest chain ``<= want`` that one launch runs, at least 1: any on
+    the FFT route (no halo: a barrier across the grid between iterations); on
+    the product route the longest whose window (tile plus the halo of ``chain
+    * (overlap - 1)`` frames per side) fits shared memory."""
     overlap = n_fft // hop_length
     chain = max(1, want)
+    if fft_covers(n_fft):
+        return chain
     while chain >= 2 and _pick_tile(1 << 30, chain, overlap, hop_length) is None:
         chain -= 1
     return chain
+
+
+def _fft_smem_bytes(tile_t: int, overlap: int, hop: int, teams: int) -> int:
+    """Shared memory of one block of the FFT route, as ``csrc/glstep.cu``
+    lays it out: the samples of ``tile_t + overlap - 1`` chunks,
+    ``frames_rfft``'s area, the synthesis window, the leak table and one leak
+    factor per synthesized frame."""
+    n = overlap * hop
+    return 4 * ((tile_t + overlap - 1) * hop + fft_smem_floats(n, teams) + 2 * n + tile_t + 2 * overlap)
+
+
+@functools.lru_cache(maxsize=None)
+def _step_fft_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
+    """``(tile_t, teams)`` of the FFT route's block (``fft_covers(n_fft)``):
+    ``tile_t`` frames a multiple of ``2 overlap`` (the synthesis's pair groups
+    start at the block's first frame, the analysis's pairs ``(2j, 2j + 1)`` at
+    an even one), chosen by ``frames_fft.class_plan`` with the analysis's
+    ``tile_t / 2`` pairs: 56 frames and 4 FFTs at 1024/256, two blocks an SM."""
+    overlap = n_fft // hop
+    return class_plan(n_fft, hop, lambda t, teams: _fft_smem_bytes(t, overlap, hop, teams),
+                      analysis_pairs=lambda t: t // 2)
+
+
+def _fft_operands(taps, n_fft: int, dev):
+    """What the FFT route reads besides the state: the taps' window, the
+    synthesis window (it over ``n_fft``), the leak table and the twiddles."""
+    taps = tuple(float(t) for t in taps)
+    (w,) = _tables(_taps_window, dev, taps, n_fft)
+    (leak,) = _tables(_leak_table, dev, taps, n_fft)
+    (tw,) = _tables(fft_twiddles, dev, n_fft)
+    return w, irfft_window(w, n_fft).contiguous(), leak, tw
 
 
 def _env_rows(T: int, n_fft: int, hop_length: int, window: torch.Tensor) -> torch.Tensor:
@@ -197,6 +252,66 @@ def _project(mag, are, aim, env, n_fft, hop, taps):
     return _taps_conv(Xre, Xim, taps)
 
 
+@functools.lru_cache(maxsize=None)
+def _taps_window(taps: Tuple[float, ...], n_fft: int) -> np.ndarray:
+    """The cosine-sum window of ``taps``, ``w[i] = taps[0] + 2 sum_{p >= 1}
+    taps[p] cos(2 pi p i / n_fft)``, built in float64 and rounded once: the
+    window the taps conv applies, which the FFT route applies in the time
+    domain."""
+    ang = 2.0 * np.pi * np.arange(n_fft) / n_fft
+    w = sum((1.0 if p == 0 else 2.0) * c * np.cos(p * ang) for p, c in enumerate(taps))
+    return np.asarray(w, dtype=np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _leak_table(taps: Tuple[float, ...], n_fft: int) -> np.ndarray:
+    """``-(2 / n_fft) sum_{p >= 1} taps[p] sin(2 pi p i / n_fft)``, float64
+    rounded once: what an imaginary part of 1 at bin 0 adds to sample ``i`` of
+    a frame through the taps conv (bins 1..P gain ``i taps[p]``), and an
+    inverse real FFT drops."""
+    ang = 2.0 * np.pi * np.arange(n_fft) / n_fft
+    s = sum((c * np.sin(p * ang) for p, c in enumerate(taps) if p >= 1), np.zeros(n_fft))
+    return np.asarray(-(2.0 / n_fft) * s, dtype=np.float32)
+
+
+def _fft_frames(mag, are, aim, n_fft: int, hop: int, window) -> torch.Tensor:
+    """``frames_irfft`` of the spectra ``mag * (are, aim)`` ``(B, T, F)`` under
+    ``irfft_window(window)``, as the FFT route's kernels (C, D, I, J) pair
+    them: frames ``f`` and ``f + overlap`` for ``f mod 2 overlap >= overlap``
+    (frames 0 .. overlap - 1 pair with zero frames before the clip)."""
+    ov = n_fft // hop
+    lead = mag.new_zeros(mag.shape[:-2] + (ov, mag.shape[-1]))
+    re = torch.cat([lead, mag * are], dim=-2)
+    im = torch.cat([lead, mag * aim], dim=-2)
+    return frames_irfft_reference(re, im, irfft_window(window, n_fft), ov)[..., ov:, :]
+
+
+def _project_fft(mag, are, aim, env, n_fft, hop, taps):
+    """The consistency projection on the FFT route's schedule, plain PyTorch
+    in the kernel's order of float32 operations: the frames of
+    :func:`_fft_frames` under the taps' window, plus ``Im(Y_0)`` times
+    :func:`_leak_table` on every sample, the overlap-add in class order
+    ``f mod overlap``, the division by the envelope, the in-place framing of
+    the un-trimmed signal, ``frames_rfft_reference`` (pairs ``(2j, 2j +
+    1)``) under the taps' window."""
+    taps = tuple(float(t) for t in taps)
+    (w,) = _tables(_taps_window, mag.device, taps, n_fft)
+    (leak,) = _tables(_leak_table, mag.device, taps, n_fft)
+    frames = _fft_frames(mag, are, aim, n_fft, hop, w)
+    lam = mag[..., 0] * aim[..., 0]
+    frames = frames + lam[..., None] * leak
+    signal = overlap_add_classes(frames, hop) / env.reshape(-1)
+    return frames_rfft_reference(signal.unfold(-1, n_fft, hop), w)
+
+
+def _projection_reference(mag, are, aim, env, n_fft, hop, taps):
+    """The plain projection of the route ``n_fft`` picks: :func:`_project_fft`
+    where ``fft_covers(n_fft)``, else :func:`_project`."""
+    if fft_covers(n_fft):
+        return _project_fft(mag, are, aim, env, n_fft, hop, taps)
+    return _project(mag, are, aim, env, n_fft, hop, taps)
+
+
 def gl_momentum_step_reference(
     mag: torch.Tensor,
     are: torch.Tensor,
@@ -211,11 +326,12 @@ def gl_momentum_step_reference(
     iters: int = 1,
 ):
     """Plain PyTorch version of the kernel: ``iters`` momentum-GL iterations on
-    ``(B, T, F)`` arrays, returning ``(nare, naim, rre, rim)``.  Rows outside
-    ``[0, T)`` are zero, so no halo is needed here and ``iters`` chained
-    iterations are ``iters`` single ones."""
+    ``(B, T, F)`` arrays, returning ``(nare, naim, rre, rim)``, on the route
+    ``n_fft`` picks (:func:`_projection_reference`).  Rows outside ``[0, T)``
+    are zero, so no halo is needed here and ``iters`` chained iterations are
+    ``iters`` single ones."""
     for _ in range(iters):
-        rre, rim = _project(mag, are, aim, env, n_fft, hop_length, taps)
+        rre, rim = _projection_reference(mag, are, aim, env, n_fft, hop_length, taps)
         ure = rre - mom * tre
         uim = rim - mom * tim
         n = torch.clamp_min(torch.sqrt(ure * ure + uim * uim), 1e-16)
@@ -323,6 +439,9 @@ def make_gl_momentum_step(
             "(need cosine-sum taps with P <= 4, hop | n_fft, 2 <= overlap <= 8 "
             "and hop %% 32 == 0)" % (n_fft, hop_length)
         )
+    name = "gl_momentum_chain" if iters >= 2 else "gl_momentum_step"
+    if fft_covers(n_fft):
+        return _make_fft_step(mag32, env, n_fft, hop_length, taps, mom, iters, name), _to_rows, _from_rows
     tile_t = _pick_tile(T, iters, overlap, hop_length)
     if tile_t is None:
         raise NotImplementedError(
@@ -343,7 +462,6 @@ def make_gl_momentum_step(
     if iters >= 2:
         wmax = tile_t + 2 * (overlap - 1) * (iters - 1)
         scratch = torch.empty((B * n_tiles, 4, wmax, F), dtype=torch.float32, device=dev)
-    name = "gl_momentum_chain" if iters >= 2 else "gl_momentum_step"
     lib = _build.load_library()
 
     def step(are, aim, tre, tim):
@@ -361,17 +479,62 @@ def make_gl_momentum_step(
             )
         _build.check(code, name)
         launches[name] += 1
+        routes[name + ":product"] += 1
         return tuple(outs)
 
     return step, _to_rows, _from_rows
 
 
+def _fft_plan_or_raise(n_fft: int, hop: int) -> Tuple[int, int]:
+    plan = _step_fft_plan(n_fft, hop)
+    if plan is None:
+        raise NotImplementedError(
+            "the CUDA Griffin-Lim kernel's FFT route holds a block's samples in shared "
+            "memory, which n_fft=%d hop=%d exceeds; use fused=False" % (n_fft, hop))
+    return plan
+
+
+def _make_fft_step(mag32, env, n_fft: int, hop: int, taps, mom: float, iters: int, name: str) -> Callable:
+    """The step of :func:`make_gl_momentum_step` on the FFT route: one launch
+    of ``gl_step_fft_kernel`` a call (a cooperative one for a chain, whose
+    intermediate state goes through a scratch set of four ``(B, T, F)``
+    arrays allocated here)."""
+    B, T, F = mag32.shape
+    dev = mag32.device
+    tile_t, teams = _fft_plan_or_raise(n_fft, hop)
+    ops = _fft_operands(taps, n_fft, dev)
+    scratch = barrier = None
+    if iters >= 2:
+        scratch = torch.empty((4, B, T, F), dtype=torch.float32, device=dev)
+        barrier = torch.zeros(2, dtype=torch.int32, device=dev)
+    lib = _build.load_library()
+
+    def step(are, aim, tre, tim):
+        ins = [_checked(a, n, dev, (B, T, F)) for a, n in zip((are, aim, tre, tim), _STATE)]
+        outs = [torch.empty((B, T, F), dtype=torch.float32, device=dev) for _ in range(4)]
+        with torch.cuda.device(dev):
+            code = lib.att_gl_step_fft(
+                mag32.data_ptr(), *[a.data_ptr() for a in ins], env.data_ptr(),
+                *[o.data_ptr() for o in ops], B, T, F, hop, n_fft // hop, tile_t, teams, mom, iters, 0,
+                *[o.data_ptr() for o in outs], None if scratch is None else scratch.data_ptr(),
+                None if barrier is None else barrier.data_ptr(),
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+            )
+        _build.check(code, name)
+        launches[name] += 1
+        routes[name + ":fft"] += 1
+        return tuple(outs)
+
+    return step
+
+
 # ------------------------------------------------- kernel I: the projection
 def gl_project_reference(mag, ang_re, ang_im, n_fft, hop_length, taps, window):
-    """Plain PyTorch version of :func:`gl_project`."""
+    """Plain PyTorch version of :func:`gl_project`, on the route ``n_fft``
+    picks."""
     env = _env_rows(mag.shape[-2], n_fft, hop_length, window.to(mag.device))
-    return _project(mag.to(torch.float32), ang_re.to(torch.float32), ang_im.to(torch.float32),
-                    env, n_fft, hop_length, taps)
+    return _projection_reference(mag.to(torch.float32), ang_re.to(torch.float32),
+                                 ang_im.to(torch.float32), env, n_fft, hop_length, taps)
 
 
 def gl_project(mag, ang_re, ang_im, n_fft, hop_length, taps, window):
@@ -391,6 +554,8 @@ def gl_project(mag, ang_re, ang_im, n_fft, hop_length, taps, window):
         )
     B, T, F = mag.shape
     dev = mag.device
+    if fft_covers(n_fft):
+        return _fft_project(mag, ang_re, ang_im, n_fft, hop_length, taps, window)
     tile_t = _pick_tile(T, 1, n_fft // hop_length, hop_length)
     if tile_t is None:
         raise NotImplementedError(
@@ -420,6 +585,35 @@ def gl_project(mag, ang_re, ang_im, n_fft, hop_length, taps, window):
         )
     _build.check(code, "gl_project")
     launches["gl_project"] += 1
+    routes["gl_project:product"] += 1
+    return rre, rim
+
+
+def _fft_project(mag, ang_re, ang_im, n_fft: int, hop: int, taps, window):
+    """:func:`gl_project` on the FFT route: the step kernel's FFT route with
+    ``project = 1`` (no momentum update, R written alone)."""
+    B, T, F = mag.shape
+    dev = mag.device
+    tile_t, teams = _fft_plan_or_raise(n_fft, hop)
+    ins = [a.to(torch.float32).contiguous() for a in (mag, ang_re, ang_im)]
+    for a in ins:
+        if a.device != dev or tuple(a.shape) != (B, T, F):
+            raise ValueError("mag, ang_re and ang_im must be (B, T, F) on one device")
+    env = _env_rows(T, n_fft, hop, window.to(dev))
+    ops = _fft_operands(taps, n_fft, dev)
+    rre = torch.empty((B, T, F), dtype=torch.float32, device=dev)
+    rim = torch.empty_like(rre)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        code = lib.att_gl_step_fft(
+            ins[0].data_ptr(), ins[1].data_ptr(), ins[2].data_ptr(), None, None, env.data_ptr(),
+            *[o.data_ptr() for o in ops], B, T, F, hop, n_fft // hop, tile_t, teams, 0.0, 1, 1,
+            None, None, rre.data_ptr(), rim.data_ptr(), None, None,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    _build.check(code, "gl_project")
+    launches["gl_project"] += 1
+    routes["gl_project:fft"] += 1
     return rre, rim
 
 
@@ -569,12 +763,7 @@ def _fullk_fft_signal(mag, are, aim, n_fft: int, hop: int, window) -> torch.Tens
     pairs them (frames ``f`` and ``f + overlap`` for ``f mod 2 overlap >=
     overlap``: frames 0 .. overlap - 1 pair with zero frames before the
     clip) and sums them (class ``f mod overlap`` after class)."""
-    ov = n_fft // hop
-    lead = mag.new_zeros(mag.shape[:-2] + (ov, mag.shape[-1]))
-    re = torch.cat([lead, mag * are], dim=-2)
-    im = torch.cat([lead, mag * aim], dim=-2)
-    frames = frames_irfft_reference(re, im, irfft_window(window, n_fft), ov)[..., ov:, :]
-    return overlap_add_classes(frames, hop)
+    return overlap_add_classes(_fft_frames(mag, are, aim, n_fft, hop, window), hop)
 
 
 def gl_momentum_step_fullk_oracle(mag, are, aim, tre, tim, env, n_fft, hop_length, window, mom):

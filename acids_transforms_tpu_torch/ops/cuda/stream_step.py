@@ -19,7 +19,11 @@ to three kernel launches instead of a Python loop of small ops per chunk
   inverse FFT in one team's buffer, the frames overlap-added in class order;
   :func:`_roundtrip_plan`), the products elsewhere;
 * ``make_fused_random_invert`` (P): the ``random`` decode, magnitudes
-  ``(..., T, F)`` -> audio ``(..., T * hop)``;
+  ``(..., T, F)`` -> audio ``(..., T * hop)``.  P, S and O's projection
+  synthesis take the FFT route where ``fft_covers(n_fft)``
+  (``csrc/stream_step.cu:session_decode_fft_kernel``: ``frames_irfft`` of
+  the input spectra, the roundtrips' synthesis; :func:`_decode_plan`), the
+  synthesis product elsewhere;
 * ``make_fused_pghi_roundtrip`` (N): the phaseless RT-PGHI roundtrip, three
   launches: the magnitude encode (R's analysis with an ``|X|`` epilogue), the
   recurrence (``csrc/pghi.cu:rt_pghi_phases_kernel``, one block per session
@@ -165,13 +169,16 @@ launches: Dict[str, int] = {
     "session_magnitude": 0, "rt_pghi_phases": 0, "session_complex_decode": 0,
     "rt_pghi_seeded": 0, "gl_project_synthesis": 0, "gl_project_analysis": 0,
 }
-#: the encode's and the roundtrips' launches by route, ``"<kernel>:fft"`` /
-#: ``"<kernel>:product"`` (each also counts in ``launches``)
+#: the encode's, the roundtrips' and the decodes' launches by route,
+#: ``"<kernel>:fft"`` / ``"<kernel>:product"`` (each also counts in ``launches``)
 routes: Dict[str, int] = {
     "session_encode:fft": 0, "session_encode:product": 0,
     "session_magnitude:fft": 0, "session_magnitude:product": 0,
     "session_roundtrip:fft": 0, "session_roundtrip:product": 0,
     "session_random_roundtrip:fft": 0, "session_random_roundtrip:product": 0,
+    "session_random_decode:fft": 0, "session_random_decode:product": 0,
+    "session_complex_decode:fft": 0, "session_complex_decode:product": 0,
+    "gl_project_synthesis:fft": 0, "gl_project_synthesis:product": 0,
 }
 
 
@@ -339,6 +346,13 @@ def _decode_smem_bytes(rows: int, overlap: int, kp: int) -> int:
     return 4 * ((rows + overlap - 1) * kp + _STAGE)
 
 
+def _decode_fft_smem_bytes(rows: int, hop: int, n_fft: int, teams: int) -> int:
+    """Shared memory of one decode block on the FFT route: the ``rows`` output
+    chunks and ``frames_irfft``'s area (the synthesis window in the window's
+    place)."""
+    return 4 * (rows * hop + fft_smem_floats(n_fft, teams))
+
+
 def _best_rows(candidates, overlap: int) -> Optional[int]:
     """The block height with the least recomputed or idle work: a block of R
     output chunks analyses or builds R + overlap - 1 frame rows, and the
@@ -405,6 +419,35 @@ def _roundtrip_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
     return class_plan(n_fft, hop, lambda r, teams: _roundtrip_fft_smem_bytes(r, overlap, hop, teams))
 
 
+@functools.lru_cache(maxsize=None)
+def _decode_plan(n_fft: int, hop: int, rows: Optional[int] = None) -> Optional[Tuple[int, int]]:
+    """``(rows, teams)`` of the decode's launch (P, S, O's projection
+    synthesis), or None when no block fits.  The FFT route
+    (``fft_covers(n_fft)``): rows a multiple of ``2 overlap``,
+    ``frames_fft.class_plan``'s (56 chunks, 4 FFTs at 1024/256, two blocks an
+    SM), or for narrow blocks (``rows`` given: O's projection, so that one
+    session's grid spreads over several SMs) the smallest multiple of ``2
+    overlap`` at least ``rows`` (8 chunks at 1024/256), with as many FFTs
+    side by side as fit; the product route: ``teams = 0`` and
+    :func:`_pick_rows`'s height (at most ``rows``)."""
+    if not fft_covers(n_fft):
+        fit = _pick_rows("decode", n_fft, hop)
+        if fit is None:
+            return None
+        return (fit if rows is None else min(int(rows), fit)), 0
+    overlap = n_fft // hop
+    if rows is None:
+        return class_plan(n_fft, hop, lambda r, teams: _decode_fft_smem_bytes(r, hop, n_fft, teams),
+                          widest=max(64, 2 * overlap))
+    r = -(-int(rows) // (2 * overlap)) * 2 * overlap
+    teams = fft_max_teams(n_fft)
+    while teams >= 1:
+        if _decode_fft_smem_bytes(r, hop, n_fft, teams) <= MAX_SMEM:
+            return r, teams
+        teams //= 2
+    return None
+
+
 def _project_frames_fit(n_fft: int, hop: int, rows: int) -> bool:
     """Whether O's projection analysis takes a grid of ``rows`` polished
     frames (``T_c + lookahead``): at most 40, whose samples fit shared memory."""
@@ -425,6 +468,8 @@ def kernel_covers(kind: str, n_fft: int, hop: int, rows: Optional[int] = None) -
         return kernel_covers("decode", n_fft, hop) and _project_frames_fit(n_fft, hop, int(rows))
     if kind == "encode":
         return hop % 4 == 0 and n_fft % hop == 0 and _encode_plan(n_fft, hop) is not None
+    if kind == "decode":
+        return hop % 4 == 0 and n_fft % hop == 0 and _decode_plan(n_fft, hop) is not None
     return hop % 4 == 0 and n_fft % hop == 0 and _pick_rows(kind, n_fft, hop) is not None
 
 
@@ -536,10 +581,45 @@ def session_encode_reference(x2d, window, n_fft: int, hop: int, n_frames: int):
     return torch.matmul(frames, WC), torch.matmul(frames, WS)
 
 
+def _decode_operands(inv_window: torch.Tensor, gain: float, n_fft: int, hop: int):
+    """What the decode reads besides the spectra, ``(syn, wsyn, twiddles)``:
+    on the FFT route (``fft_covers(n_fft)``) the synthesis window over the
+    gain and ``n_fft`` (``frames_fft.irfft_window``) and the twiddle table, on
+    the product route the basis of :func:`_syn_basis`."""
+    if fft_covers(n_fft):
+        (tw,) = _tables(fft_twiddles, inv_window.device, n_fft)
+        wsyn = irfft_window(inv_window.to(torch.float32) / gain, n_fft)
+        return None, wsyn.contiguous(), tw
+    return _syn_basis(inv_window, gain, n_fft, hop), None, None
+
+
 def _synthesize(re, im, inv_window, gain: float, n_fft: int, hop: int, T: int) -> torch.Tensor:
     Aw, Bw = _syn_mats(inv_window.to(re.device), gain, n_fft)
     frames = torch.matmul(re, Aw) + torch.matmul(im, Bw)
     return overlap_add(frames, hop)[..., : T * hop]
+
+
+def _synthesize_fft(re, im, inv_window, gain: float, n_fft: int, hop: int, T: int) -> torch.Tensor:
+    """The synthesis of the FFT route in its kernels' schedule (the decode's
+    and the roundtrips'): the frames from ``-(overlap - 1)`` on (those before
+    0 zero), paired ``(u, u + overlap)`` for ``u mod 2 overlap < overlap``
+    counted from the first, through ``frames_irfft_reference`` under the
+    synthesis window over the gain; the samples of the frames before 0
+    dropped, the overlap-add in class order ``(f + overlap - 1) mod
+    overlap``, cut at ``T * hop``."""
+    m = n_fft // hop - 1
+    lead = re.new_zeros(re.shape[:-2] + (m, re.shape[-1]))
+    wsyn = irfft_window(inv_window.to(device=re.device, dtype=torch.float32) / gain, n_fft)
+    y = frames_irfft_reference(torch.cat([lead, re], dim=-2), torch.cat([lead, im], dim=-2), wsyn,
+                               n_fft // hop)[..., m:, :]
+    return overlap_add_classes(y, hop, m)[..., : T * hop]
+
+
+def _synthesis_reference(re, im, inv_window, gain: float, n_fft: int, hop: int, T: int) -> torch.Tensor:
+    """The plain synthesis of the route ``n_fft`` picks: :func:`_synthesize_fft`
+    where ``fft_covers(n_fft)``, else :func:`_synthesize`."""
+    synth = _synthesize_fft if fft_covers(n_fft) else _synthesize
+    return synth(re, im, inv_window, gain, n_fft, hop, T)
 
 
 def session_roundtrip_reference(x2d, window, inv_window, gain: float, n_fft: int, hop: int,
@@ -572,29 +652,29 @@ def _roundtrip_fft_reference(x2d, window, inv_window, gain, n_fft, hop, T, angle
     frames = frame(session_rows(x2d, n_fft, hop, T), n_fft, hop)
     frames = torch.cat([frames.new_zeros((frames.shape[0], m, n_fft)), frames], dim=1)
     re, im = frames_rfft_reference(frames, window.to(x2d.device), ov)
-    re[:, :m] = 0.0
-    im[:, :m] = 0.0
+    re, im = re[:, m:], im[:, m:]
     if angles is not None:
         a = angles[:, :T]
-        mag = torch.sqrt(re[:, m:] * re[:, m:] + im[:, m:] * im[:, m:])
-        re[:, m:], im[:, m:] = mag * torch.cos(a), mag * torch.sin(a)
-    wsyn = irfft_window(inv_window.to(device=x2d.device, dtype=torch.float32) / gain, n_fft)
-    y = frames_irfft_reference(re, im, wsyn, ov)[:, m:]
-    return overlap_add_classes(y, hop, m)[:, : T * hop]
+        mag = torch.sqrt(re * re + im * im)
+        re, im = mag * torch.cos(a), mag * torch.sin(a)
+    return _synthesize_fft(re, im, inv_window, gain, n_fft, hop, T)
 
 
 def session_decode_reference(mag, angles, inv_window, gain: float, n_fft: int, hop: int) -> torch.Tensor:
     """Plain version of kernel P: magnitudes ``(B, T, F)`` and angles ``(B,
-    >= T, F)`` -> ``(B, T * hop)``."""
+    >= T, F)`` -> ``(B, T * hop)``, on the route ``n_fft`` picks
+    (:func:`_synthesis_reference`)."""
     T = mag.shape[1]
     a = angles[:, :T]
-    return _synthesize(mag * torch.cos(a), mag * torch.sin(a), inv_window, gain, n_fft, hop, T)
+    return _synthesis_reference(mag * torch.cos(a), mag * torch.sin(a), inv_window, gain, n_fft, hop, T)
 
 
 def session_complex_decode_reference(spec, inv_window, gain: float, n_fft: int, hop: int) -> torch.Tensor:
     """Plain version of kernel S: a complex spectrum ``(B, T, F)`` -> ``(B, T *
-    hop)``."""
-    return _synthesize(spec.real, spec.imag, inv_window, gain, n_fft, hop, spec.shape[1])
+    hop)``, on the route ``n_fft`` picks (the imaginary parts at DC and
+    nyquist unread on both)."""
+    return _synthesis_reference(spec.real.contiguous(), spec.imag.contiguous(), inv_window, gain, n_fft, hop,
+                                spec.shape[1])
 
 
 def session_magnitude_reference(x2d, window, n_fft: int, hop: int, n_frames: int) -> torch.Tensor:
@@ -759,24 +839,33 @@ def _launch_roundtrip(x2d, angles, ops, n_fft, hop, T) -> torch.Tensor:
     return out
 
 
-def _launch_decode(mag, angles, syn, n_fft, hop, rows=None, name=None) -> torch.Tensor:
+def _launch_decode(mag, angles, ops, n_fft, hop, rows=None, name=None) -> torch.Tensor:
     """P: ``mag (B, T, F)`` with ``angles (B, >= T, F)``; S (``angles=None``):
-    ``mag`` is the spectrum as ``(B, T, F, 2)`` floats.  ``rows`` output
-    chunks per block (default: the widest that fits), ``name`` the counter."""
-    fit = _require("decode", n_fft, hop)
-    rows = fit if rows is None else min(int(rows), fit)
+    ``mag`` is the spectrum as ``(B, T, F, 2)`` floats.  ``ops``:
+    :func:`_decode_operands`, whose route ``fft_covers(n_fft)`` picks.
+    ``rows`` output chunks per block for narrow blocks (default: the plan's),
+    ``name`` the counter."""
+    _require("decode", n_fft, hop)
+    rows, teams = _decode_plan(n_fft, hop, None if rows is None else int(rows))
+    syn, wsyn, tw = ops
+    if teams and (wsyn is None or tw is None):
+        raise ValueError("the decode's FFT route takes the synthesis window and the twiddle table")
+    if not teams and syn is None:
+        raise ValueError("the decode's product route takes the synthesis basis")
     B, T, F = mag.shape[:3]
     out = torch.empty((B, T * hop), dtype=torch.float32, device=mag.device)
     lib = _build.load_library()
     with torch.cuda.device(mag.device):
         code = lib.att_session_decode(
-            mag.data_ptr(), None if angles is None else angles.data_ptr(), syn.data_ptr(),
-            out.data_ptr(), B, T, T if angles is None else angles.shape[1], F, hop, n_fft // hop,
-            syn.shape[1], rows, _stream(),
+            mag.data_ptr(), None if angles is None else angles.data_ptr(),
+            *[None if o is None else o.data_ptr() for o in (syn, wsyn, tw)], out.data_ptr(), B, T,
+            T if angles is None else angles.shape[1], F, hop, n_fft // hop, 0 if teams else syn.shape[1], rows,
+            teams, _stream(),
         )
     name = name or ("session_complex_decode" if angles is None else "session_random_decode")
     _build.check(code, name)
     launches[name] += 1
+    routes[name + (":fft" if teams else ":product")] += 1
     return out
 
 
@@ -811,8 +900,8 @@ def gl_project_reference(mag, phase, inv_window, window, n_fft: int, hop: int, c
     overlap = n_fft // hop
     Tp = mag.shape[1]
     Tx = Tp - (overlap - 1)
-    y = _synthesize(mag * torch.cos(phase), mag * torch.sin(phase), inv_window, float(overlap),
-                    n_fft, hop, Tp)
+    y = _synthesis_reference(mag * torch.cos(phase), mag * torch.sin(phase), inv_window, float(overlap),
+                             n_fft, hop, Tp)
     fr = y.unfold(-1, n_fft, hop)[:, ctx:Tx]
     WC, WS = _ana_basis(window.to(mag.device), n_fft)
     new = torch.atan2(torch.matmul(fr, WS), torch.matmul(fr, WC))
@@ -845,9 +934,10 @@ PROJECT_SYN_ROWS = 8
 def gl_project(mag, phase, proj_syn, inv_window, window, WC, WS, n_fft: int, hop: int, ctx: int,
                keep_lo: int, keep_hi: int) -> torch.Tensor:
     """One projection of O's grid (see :func:`gl_project_reference`): on a
-    CUDA tensor P's synthesis with ``proj_syn`` (the basis divided by
-    ``overlap``) then the analysis kernel, which updates ``phase`` in place
-    and returns it; on a CPU tensor the plain version."""
+    CUDA tensor P's synthesis with ``proj_syn`` (:func:`_decode_operands`
+    with the gain ``overlap``) in narrow blocks, then the analysis kernel,
+    which updates ``phase`` in place and returns it; on a CPU tensor the
+    plain version."""
     if not mag.is_cuda:
         return gl_project_reference(mag, phase, inv_window, window, n_fft, hop, ctx, keep_lo, keep_hi)
     Tx = mag.shape[1] - (n_fft // hop - 1)
@@ -879,6 +969,10 @@ class _Session:
 
     def synthesis(self):
         return _syn_basis(self.rt.inv_window, self.gain, self.n_fft, self.hop)
+
+    def decode_operands(self):
+        """What P and S read besides the spectra (:func:`_decode_operands`)."""
+        return _decode_operands(self.rt.inv_window, self.gain, self.n_fft, self.hop)
 
     def roundtrip_operands(self):
         """What L and M read besides the signal, ``(wc, ws, syn, window, wsyn,
@@ -923,7 +1017,7 @@ class _Session:
         rt, n_fft, hop = self.rt, self.n_fft, self.hop
         proj_syn = WC = WS = None
         if mag.is_cuda:
-            proj_syn = _syn_basis(rt.inv_window, float(n_fft // hop), n_fft, hop)
+            proj_syn = _decode_operands(rt.inv_window, float(n_fft // hop), n_fft, hop)
             WC, WS = self.analysis()
         cm, cp = _pghi_gl_commits(
             mag, angles, rt, self.T_c,
@@ -1081,7 +1175,7 @@ def make_fused_random_invert(chain, chunk_frames: int, generator: Optional[torch
     as the scan's zero-padded last chunk does)."""
     s = _Session(chain, chunk_frames)
 
-    syn = s.synthesis()
+    syn = s.decode_operands()
 
     def run(y: torch.Tensor) -> torch.Tensor:
         batch_shape = tuple(y.shape[:-2])
@@ -1126,7 +1220,7 @@ def make_fused_pghi_roundtrip(chain, chunk_size: int, generator: Optional[torch.
     a threshold (then by quality)."""
     s = _Session(chain, chunk_size // chain.transforms[1].hop_length)
     ops = s.encode_operands()
-    syn = s.synthesis()
+    syn = s.decode_operands()
 
     def run(x: torch.Tensor) -> torch.Tensor:
         batch_shape = tuple(x.shape[:-1])
@@ -1151,7 +1245,7 @@ def make_fused_pghi_invert(chain, chunk_frames: int, generator: Optional[torch.G
     then the synthesis.  Equal to ``scan_invert(chain, mags, chunk_frames,
     inversion_mode="pghi", generator=g)`` under the roundtrip's terms."""
     s = _Session(chain, chunk_frames)
-    syn = s.synthesis()
+    syn = s.decode_operands()
 
     def run(y: torch.Tensor) -> torch.Tensor:
         batch_shape = tuple(y.shape[:-2])
@@ -1175,7 +1269,7 @@ def make_fused_complex_invert(chain, chunk_frames: int):
     chunking changes nothing: a session's output is the overlap-add of all
     its frames)."""
     s = _Session(chain, chunk_frames)
-    syn = s.synthesis()
+    syn = s.decode_operands()
 
     def run(y: torch.Tensor) -> torch.Tensor:
         batch_shape = tuple(y.shape[:-2])
@@ -1212,7 +1306,7 @@ def make_fused_pghi_gl_roundtrip(chain, chunk_size: int, generator: Optional[tor
     state, up to float32 rounding and the anchor decisions it can flip."""
     s = _Session(chain, chunk_size // chain.transforms[1].hop_length)
     ops = s.encode_operands()
-    syn = s.synthesis()
+    syn = s.decode_operands()
 
     def run(x: torch.Tensor) -> torch.Tensor:
         batch_shape = tuple(x.shape[:-1])
@@ -1236,7 +1330,7 @@ def make_fused_pghi_gl_invert(chain, chunk_frames: int, generator: Optional[torc
     to ``scan_invert(chain, mags, chunk_frames, inversion_mode="pghi_gl",
     generator=g)`` under the roundtrip's terms."""
     s = _Session(chain, chunk_frames)
-    syn = s.synthesis()
+    syn = s.decode_operands()
 
     def run(y: torch.Tensor) -> torch.Tensor:
         batch_shape = tuple(y.shape[:-2])

@@ -24,20 +24,25 @@ chunk; lookahead 4 too), all held against the generic chunk scan, and (phase
 the same calls on the CPU, and shapes the port's kernels take (1200/300) on
 the kernels.  The session encode (R, the magnitude encode), the full-K
 melspec front end (E, F), the full-K Griffin-Lim step (J) and the streaming
-roundtrips (L, M), K's synthesis and the full-K representation kernels (G,
-H) have two routes, picked by n_fft alone: a shared-memory FFT
+roundtrips (L, M), K's synthesis, the full-K representation kernels (G,
+H), the Griffin-Lim step of cosine-sum windows (C, its chain D, the
+projection I) and the streaming decodes (P, S, O's projection synthesis)
+have two routes, picked by n_fft alone: a shared-memory FFT
 (``csrc/fft_smem.cuh``: ``frames_rfft`` for the analyses, ``frames_irfft``
-for the syntheses of J, L, M and K) at a power of two from 64 to 4096, the
-window-folded products elsewhere.  Phases 3 and 4f hold the FFT route
-against its plain version (within 1e-5 for R, E and F; 1e-6 for J, L, M,
-K's synthesis, G and H, which come out bit-identical) and against a float64
-oracle at 1024, 512, 2048 and 4096 (K, G and H at every power of two from
-64), and the product route at 768/256 (E, F, J, K, G, H), 768/192 (K),
-8192/2048 (J), 1200/300 (R, L, M, K) and 960/240 (R); the launch counters'
-route tally shows every main-path launch of the ten on the FFT route, and
-phase 4h drives the product routes through the entry points (1200/300
-sessions, a DGT(768, 256) chain's fit, forward, ``pghi`` and ``pghi_gl``,
-DGT(768, 256) + PolarIF's fit and forward).  Phase
+for the syntheses of C, D, I, J, L, M, K, P, S and O) at a power of two
+from 64 to 4096, the window-folded products elsewhere.  Phases 3 and 4f
+hold the FFT route against its plain version (within 1e-5 for R, E and F;
+1e-6 for C, D, I, J, L, M, K's synthesis, G, H, P, S and O's synthesis,
+which come out bit-identical) and against a float64 oracle at 1024, 512,
+2048 and 4096 (C, D, I, K, G, H, P, S and O's synthesis at every power of
+two from 64), and the product route at 768/256 (E, F, J, K, G, H), 768/192
+(C, D, I, K), 8192/2048 (J), 1200/300 (R, L, M, K, P, S, O's synthesis) and
+960/240 (R); the launch counters' route tally shows every main-path launch
+of the sixteen on the FFT route, and phase 4h drives the product routes
+through the entry points (1200/300 sessions, the complex decode included,
+an STFT(768, 192) Griffin-Lim invert, a DGT(768, 256) chain's fit,
+forward, ``pghi`` and ``pghi_gl``, DGT(768, 256) + PolarIF's fit and
+forward).  Phase
 6 runs the floor sweep of A
 (``acids_transforms_tpu_torch.tools.sweep_kernel_floor``: kernel T, A cut
 after each of its stages) at the main path's shape, prints each stage's
@@ -54,8 +59,8 @@ prints
   formulation needs), and apart from the bound the fp32
   ceiling of the kernel's own design (the product's multiply-adds, or the
   FFT route's operations, at 67 TFLOP/s); ``front_end`` "fft" or "product"
-  on the rows of R, the magnitude encode, E, F, J, L, M, K's synthesis, G
-  and H full-K, one row a route),
+  on the rows of R, the magnitude encode, C, D, E, F, I, J, L, M, K's
+  synthesis, G and H full-K, P, S and O's synthesis, one row a route),
 * the card's name and power limit as ``nvidia-smi`` gives them,
 * and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -182,10 +187,16 @@ def make_audio(batch: int, length: int, gen: torch.Generator, channels: int = 2)
 
 
 def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain=4):
-    """Kernels C and D against the plain version, a float64 oracle and each other."""
-    from acids_transforms_tpu_torch.ops.cuda import glstep
+    """Kernels C and D against the plain version, a float64 oracle and each
+    other, on the route n_fft picks: the FFT route (a power of two from 64 to
+    4096) also against its plain version on every frame within 1e-6 (it
+    repeats the kernel's float32 operations in order: measured
+    bit-identical)."""
+    from acids_transforms_tpu_torch.ops.cuda import frames_fft, glstep
 
     dev = mag.device
+    route = "fft" if frames_fft.fft_covers(n_fft) else "product"
+    glstep.reset_launches()
     g = torch.Generator(device=dev).manual_seed(seed)
     ph = 2 * math.pi * torch.rand(mag.shape, generator=g, device=dev)
     are, aim = torch.cos(ph), torch.sin(ph)
@@ -290,6 +301,20 @@ def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain
                 f"(tol {tol:g}); edge weighted {e_edge:.3e}")
             require(e_w <= tol and e_u <= tol, f"{name} {label}: angles disagree with plain")
 
+    def exact(kernel_out, plain_out, prev, label):
+        # the FFT route: the projection on every frame within 1e-6 of its
+        # largest value, the angles weighted by |u| / max|u| within 1e-6
+        if route != "fft":
+            return
+        scale_r = max(plain_out[2].abs().max().item(), plain_out[3].abs().max().item())
+        e_r = max(abs_err(kernel_out[i], plain_out[i]) for i in (2, 3)) / scale_r
+        u = torch.sqrt((plain_out[2] - mom * prev[2]) ** 2 + (plain_out[3] - mom * prev[3]) ** 2)
+        e_a = max(((kernel_out[i] - plain_out[i]).abs() * u / u.max()).max().item() for i in (0, 1))
+        same = all(torch.equal(a, b) for a, b in zip(kernel_out, plain_out))
+        log(f"  {name} {label} (fft route, block {glstep._step_fft_plan(n_fft, hop)}): every frame vs plain "
+            f"{e_r:.3e}, angles weighted by |u| {e_a:.3e} (tol 1e-06; bit-identical {same})")
+        require(e_r <= 1e-6 and e_a <= 1e-6, f"{name} {label}: the FFT route differs from its plain version")
+
     # C: one invocation from a random state, and one from the state
     # chain - 1 iterations later (so every iteration of a chain is covered
     # one by one)
@@ -297,6 +322,7 @@ def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain
     p1 = plain(state, 1)
     err_c = compare(k1, p1, state, "C (1 iteration)")
     compare_angles(k1, p1, state, "C (1 iteration)")
+    exact(k1, p1, state, "C (1 iteration)")
     st = k1
     for _ in range(chain - 2):
         st = step1(*st)
@@ -315,9 +341,16 @@ def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain
     # (tests/test_gl_parity.py measures 1e-7 -> 1.3e-4 in five iterations),
     # hence 1e-3 on the projection here; the per-iteration agreement above is
     # the sharp check.
-    abs_d = compare(k4, plain(state, chain), state, f"D (chain of {chain})", iters=chain, tol=1e-3)
-    results["C"] = max(results.get("C", 0.0), err_c)
-    results["D"] = max(results.get("D", 0.0), abs_d)
+    p4 = plain(state, chain)
+    abs_d = compare(k4, p4, state, f"D (chain of {chain})", iters=chain, tol=1e-3)
+    exact(k4, p4, st, f"D (chain of {chain})")
+    got = {k: v for k, v in glstep.routes.items() if v}
+    log(f"  {name}: C and D launches by route {got}")
+    require(set(got) == {f"gl_momentum_step:{route}", f"gl_momentum_chain:{route}"},
+            f"{name}: C and D must take the {route} route")
+    key = "" if route == "fft" else "_product"
+    results["C" + key] = max(results.get("C" + key, 0.0), err_c)
+    results["D" + key] = max(results.get("D" + key, 0.0), abs_d)
     return state, step1, step4, env
 
 
@@ -530,7 +563,8 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         fronts = {k: v for k, v in ss.routes.items() if v}
         log(f"  {label}: {ms:.1f} ms, launches {got}" + (f", encode routes {fronts}" if fronts else ""))
         require(got == expect and others() == 0, f"{label}: expected the launches {expect}, got {got}")
-        for k in ("session_encode", "session_magnitude", "session_roundtrip", "session_random_roundtrip"):
+        for k in ("session_encode", "session_magnitude", "session_roundtrip", "session_random_roundtrip",
+                  "session_random_decode", "session_complex_decode", "gl_project_synthesis"):
             require(ss.routes[f"{k}:{front}"] == ss.launches[k],
                     f"{label}: {k} launched {ss.launches[k]} times, {ss.routes[k + ':' + front]} on the {front} route")
         for k, v in got.items():
@@ -695,7 +729,7 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         msg = []
         for key, (k_out, p_out) in pairs.items():
             e = rel_err(k_out, p_out)
-            tol = 1e-6 if fft and key in ("L", "M") else 2e-5
+            tol = 1e-6 if fft and key in ("L", "M", "P") else 2e-5
             same = " bit-identical" if torch.equal(k_out, p_out) else ""
             msg.append(f"{key} {e:.3e} (tol {tol:.0e}{same})")
             require(k_out.shape == p_out.shape and torch.isfinite(k_out).all().item(), f"{key} {label}: bad output")
@@ -706,17 +740,81 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
                 msg[-1] += f", oracle {e_o:.3e} (tol 1e-05)"
                 require(e_o <= 1e-5, f"{key} {label} disagrees with the float64 oracle")
                 del o
-            if key in ("R", "L", "M") and not fft:
+            if key in ("R", "L", "M", "P") and not fft:
                 key += "_product"
             errs[key] = max(errs.get(key, 0.0), abs_err(k_out, p_out))
         log(f"  kernels vs plain, {label} ({'fft' if fft else 'product'} route of L and M; blocks: encode "
-            f"{ss._encode_plan(n_fft, hop)}, roundtrip {ss._roundtrip_plan(n_fft, hop)} as (rows, FFTs), decode "
-            f"{ss._pick_rows('decode', n_fft, hop)} chunks): rel {', '.join(msg)}")
+            f"{ss._encode_plan(n_fft, hop)}, roundtrip {ss._roundtrip_plan(n_fft, hop)}, decode "
+            f"{ss._decode_plan(n_fft, hop)} as (rows, FFTs)): rel {', '.join(msg)}")
 
     check_kernels(f"main shape {SB} x {SL}", N_FFT, HOP, sx, CH)
     check_kernels("512/128, 3 x 20000 (ragged)", 512, 128, sx[:3, :20000].contiguous(), 2048)
     check_kernels("2048/512, 2 x 30000 (ragged)", 2048, 512, sx[:2, :30000].contiguous(), 4096)
     check_kernels("1200/300, 4 x 40000 (ragged)", 1200, 300, sx[:4, :40000].contiguous(), 2400)
+
+    # P, S and O's projection synthesis by route: the FFT route at every power
+    # of two it takes (hop n_fft / 4), on magnitudes with phases up to 1e3 rad
+    # (S: with imaginary parts at DC and nyquist, which neither route reads)
+    # and an odd frame count, against the plain version (1e-6: it repeats
+    # the kernel's float32 operations in order, and sincosf is torch's sin and
+    # cos on the card; measured bit-identical) and a float64 oracle (irfft
+    # times the synthesis window over the gain, overlap-added: 1e-5); O's
+    # narrow blocks too; the product route at 1200/300 against its plain
+    # version (2e-5: fp32 products in another order than cuBLAS) and the
+    # oracle
+    def check_decode_routes(n_fft, hop, B=3, T=45):
+        Fb, ov = n_fft // 2 + 1, n_fft // hop
+        fft = ff.fft_covers(n_fft)
+        front = "fft" if fft else "product"
+        g = sgen(n_fft + hop)
+        mag = torch.rand((B, T, Fb), generator=g, device=dev)
+        ang = 1e3 * torch.rand((B, T, Fb), generator=g, device=dev)
+        spec = torch.polar(mag, ang)
+        spec[..., 0] += 0.5j
+        spec[..., -1] -= 0.25j
+        inv_w = torch.hann_window(n_fft, device=dev)
+        msg = []
+        for key, gain, rows, kname in (("P", 4.0, None, "session_random_decode"),
+                                       ("S", 4.0, None, "session_complex_decode"),
+                                       ("Osyn", float(ov), ss.PROJECT_SYN_ROWS, "gl_project_synthesis")):
+            ops = ss._decode_operands(inv_w, gain, n_fft, hop)
+            ss.reset_launches()
+            if key == "S":
+                k_out = ss._launch_decode(torch.view_as_real(spec).contiguous(), None, ops, n_fft, hop)
+                p_out = ss.session_complex_decode_reference(spec, inv_w, gain, n_fft, hop)
+                o_spec = spec.to(torch.complex128)
+                o_spec[..., 0] = o_spec[..., 0].real
+                o_spec[..., -1] = o_spec[..., -1].real
+            else:
+                k_out = ss._launch_decode(mag, ang, ops, n_fft, hop, rows=rows, name=kname)
+                p_out = ss.session_decode_reference(mag, ang, inv_w, gain, n_fft, hop)
+                o_spec = torch.polar(mag.double(), ang.double())
+            fr = torch.fft.irfft(o_spec, n=n_fft) * (inv_w.double() / gain)
+            o = torch.zeros((B, (T - 1) * hop + n_fft), dtype=torch.float64, device=dev)
+            for t in range(T):
+                o[:, t * hop: t * hop + n_fft] += fr[:, t]
+            o = o[:, : T * hop]
+            torch.cuda.synchronize()
+            e_p, e_o = rel_err(k_out, p_out), rel_err(k_out.double(), o)
+            tol = 1e-6 if fft else 2e-5
+            plan = ss._decode_plan(n_fft, hop, rows)
+            msg.append(f"{key} {e_p:.3e} (tol {tol:.0e}; bit-identical {torch.equal(k_out, p_out)}), oracle "
+                       f"{e_o:.3e} (tol 1e-05), block {plan}")
+            require(ss.routes[f"{kname}:{front}"] == 1 and sum(ss.routes.values()) == 1,
+                    f"{key} {n_fft}/{hop}: not on the {front} route")
+            require(k_out.shape == p_out.shape == (B, T * hop) and torch.isfinite(k_out).all().item(),
+                    f"{key} {n_fft}/{hop}: bad output")
+            require(e_p <= tol and e_o <= 1e-5, f"{key} {n_fft}/{hop}: out of budget")
+            k = key if fft else key + "_product"
+            errs[k] = max(errs.get(k, 0.0), abs_err(k_out, p_out))
+        log(f"  decodes {n_fft}/{hop} ({front} route, {B} x {T} frames): " + "; ".join(msg))
+
+    for n_fft in (64, 128, 256, 512, 1024, 2048, 4096):
+        check_decode_routes(n_fft, n_fft // 4)
+    check_decode_routes(1024, 128)
+    check_decode_routes(4096, 2048)
+    check_decode_routes(1200, 300)
+    ss.reset_launches()
 
     # R and the magnitude encode on the FFT route (fft_smem.cuh:frames_rfft)
     # against their plain version (frames_fft.frames_rfft_reference, the
@@ -911,7 +1009,7 @@ def stream_pghi_phase(args, dev, errs, counts, stream):
         args_r = (rt.gamma, n_fft, hop, rt.tolerance, T_c)
         ph_k = ss.rt_pghi_phases(mag_k, ang, *args_r)
         ph_p = ss.rt_pghi_phases_reference(mag_k, ang, *args_r)
-        syn = ss._syn_basis(rt.inv_window, float(gain), n_fft, hop)
+        syn = ss._decode_operands(rt.inv_window, float(gain), n_fft, hop)
         y_k = ss._launch_decode(mag_k, ph_k, syn, n_fft, hop)
         y_p = ss.session_decode_reference(mag_k, ph_k, rt.inv_window, gain, n_fft, hop)
         spec, _ = ss.make_fused_forward_session(chain, chunk)(x)
@@ -1129,11 +1227,11 @@ def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
         gp = torch.cat([(2 * torch.rand((B, ctx, Fb), generator=g, device=dev) - 1) * math.pi, ph_k, tail],
                        1).contiguous()
         lo, hi = rt.gl_frozen(T_c)
-        syn = ss._syn_basis(rt.inv_window, float(ov), n_fft, hop)
+        syn = ss._decode_operands(rt.inv_window, float(ov), n_fft, hop)
         WC, WS = ss._ana_basis(rt.window, n_fft, ss._k_analysis(n_fft))
         y_k = ss._launch_decode(gm, gp, syn, n_fft, hop, rows=ss.PROJECT_SYN_ROWS, name="gl_project_synthesis")
-        y_p = ss._synthesize(gm * torch.cos(gp), gm * torch.sin(gp), rt.inv_window, float(ov), n_fft, hop,
-                             gm.shape[1])
+        y_p = ss._synthesis_reference(gm * torch.cos(gp), gm * torch.sin(gp), rt.inv_window, float(ov), n_fft,
+                                      hop, gm.shape[1])
         p_k = ss.gl_project(gm, gp.clone(), syn, rt.inv_window, rt.window, WC, WS, n_fft, hop, ctx, lo, hi)
         p_p = ss.gl_project_reference(gm, gp, rt.inv_window, rt.window, n_fft, hop, ctx, lo, hi)
         e_syn, e_pr = rel_err(y_k, y_p), (unit(gm, p_k) - unit(gm, p_p)).abs().max().item()
@@ -1321,6 +1419,15 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     e_y = rel_err(y_c.cpu(), y_p)
     log(f"    the session vs the CPU's generic scan: rel {e_y:.3e} (tol 1e-04)")
     require(e_y <= 1e-4, "1200/300 complex roundtrip: the session differs from the generic scan")
+    # S on the product route: the complex decode of that encode, against the
+    # CPU's generic scan
+    y_s = route("1200/300 complex decode: scan_invert (the product route)",
+                lambda: streaming.scan_invert(chain, f_c, chunk // hop), {"session_complex_decode": 1}, main=False,
+                front="product")
+    e_s = rel_err(y_s.cpu(), streaming.scan_invert(c_p, f_c.cpu(), chunk // hop))
+    log(f"    the session vs the CPU's generic scan: rel {e_s:.3e} (tol 1e-04)")
+    require(torch.isfinite(y_s).all().item() and e_s <= 1e-4,
+            "1200/300 complex decode: the session differs from the generic scan")
     # M on the product route, against the card's generic scan with a generator in the same state
     y_m = route("1200/300 random roundtrip (the product route)",
                 lambda: streaming.scan_roundtrip(chain, xs, chunk, "random", generator=sgen(154)),
@@ -1363,6 +1470,36 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
         require(y_k.shape == y_g.shape and torch.isfinite(y_k).all().item() and s_k <= 1.1 * s_g + 1e-3,
                 f"1200/300 {mode}: the session converges worse than the generic scan")
 
+    # C and D on the product route: the Griffin-Lim invert of an STFT(768,
+    # 192, hann) (n_fft no power of two) on 16 clips, converging like the
+    # eager loop from the same seed
+    from acids_transforms_tpu_torch.ops.cuda import glstep as gs
+
+    st_g = T.STFT(n_fft=768, hop_length=192)
+    mag_g = st_g(mono[:16]).abs()
+    zero()
+    rec_g = st_g.griffin_lim(mag_g, generator=torch.Generator(device=dev).manual_seed(157))
+    torch.cuda.synchronize()
+    got = {k: v for k, v in gs.routes.items() if v}
+    log(f"  STFT(768, 192) Griffin-Lim invert on {tuple(mag_g.shape)}: launches "
+        f"{ {k: v for k, v in gs.launches.items() if v} }, routes {got}")
+    require(set(got) == {"gl_momentum_step:product", "gl_momentum_chain:product"} and launched() == sum(got.values()),
+            "STFT(768, 192) Griffin-Lim: C and D must launch on the product route")
+    for k, v in got.items():
+        counts[k] += v
+    rec_ge = st_g.griffin_lim(mag_g, generator=torch.Generator(device=dev).manual_seed(157), fused=False)
+
+    def conv_g(y):
+        R = st_g(y).abs()
+        n = min(R.shape[-2], mag_g.shape[-2])
+        return (torch.linalg.norm(R[:, :n] - mag_g[:, :n]) / torch.linalg.norm(mag_g)).item()
+    s_k, s_e = conv_g(rec_g), conv_g(rec_ge)
+    log(f"    spectral convergence through C and D {s_k:.5f}, eager loop from the same seed {s_e:.5f} "
+        f"(must be < {max(1.15 * s_e, s_e + 0.02):.5f})")
+    require(torch.isfinite(rec_g).all().item() and s_k < max(1.15 * s_e, s_e + 0.02),
+            "STFT(768, 192) Griffin-Lim: the product route converges worse than the eager loop")
+    del mag_g, rec_g, rec_ge
+
     # E and F on the product route: n_fft 768 is no power of two
     import acids_transforms_tpu_torch as att
     from acids_transforms_tpu_torch.ops.cuda import spectral as sp
@@ -1390,8 +1527,6 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
             "DGT(768, 256): the product route differs from the eager chain")
     # J on the product route: that chain's pghi_gl inversion (n_fft 768 is no
     # power of two), converging like the eager loop from the same seed
-    from acids_transforms_tpu_torch.ops.cuda import glstep as gs
-
     dgt = d_fit[1]
     draws = dgt._draws
     zero()
@@ -1681,6 +1816,17 @@ def main() -> int:
             require(lib.att_pghi_synth_fft_smem_bytes(rows, hop_s, n_fft_s, teams)
                     == pghi_kernel._synth_fft_smem_bytes(rows, hop_s, n_fft_s, teams),
                     "K synthesis FFT route's shared-memory size: wrapper and source disagree")
+            for narrow in (None, ss.PROJECT_SYN_ROWS):
+                rows, teams = ss._decode_plan(n_fft_s, hop_s, narrow)
+                require(teams > 0 and lib.att_session_decode_fft_smem_bytes(rows, hop_s, n_fft_s, teams)
+                        == ss._decode_fft_smem_bytes(rows, hop_s, n_fft_s, teams),
+                        "decode FFT route's shared-memory size: wrapper and source disagree")
+            if hop_s % 32 == 0:
+                tile_c, teams_c = glstep._step_fft_plan(n_fft_s, hop_s)
+                for tm in sorted({1, teams_c}):
+                    require(lib.att_gl_fft_smem_bytes(tile_c, ov_s, hop_s, tm)
+                            == glstep._fft_smem_bytes(tile_c, ov_s, hop_s, tm),
+                            "C / D / I FFT route's shared-memory size: wrapper and source disagree")
             if hop_s % 32 == 0:
                 for st in (0, 1):
                     for second, sel in spectral.SECONDS.items():
@@ -1699,8 +1845,9 @@ def main() -> int:
         f"{spectral._kernel_plan(N_FFT, HOP, None)}, L/M {ss._roundtrip_plan(N_FFT, HOP)}, K's synthesis "
         f"{pghi_kernel._synth_fft_plan(N_FFT, HOP)}, G / H full-K with the IF "
         f"{spectral._repr_plan(N_FFT, HOP, None, False, 'if', True)} / "
-        f"{spectral._repr_plan(N_FFT, HOP, None, True, 'if', False)} as (rows or "
-        f"tile, FFTs side by side); J {glstep._fullk_plan(N_FFT, HOP)} as (route, chunks, frames, FFTs))")
+        f"{spectral._repr_plan(N_FFT, HOP, None, True, 'if', False)}, C / D / I {glstep._step_fft_plan(N_FFT, HOP)}, "
+        f"P / S {ss._decode_plan(N_FFT, HOP)}, O's synthesis {ss._decode_plan(N_FFT, HOP, ss.PROJECT_SYN_ROWS)} "
+        f"as (rows or tile, FFTs side by side); J {glstep._fullk_plan(N_FFT, HOP)} as (route, chunks, frames, FFTs))")
 
     # ------------------------------------------------ 3. kernels vs plain
     log("[3] each kernel against its plain PyTorch version on the card")
@@ -1803,6 +1950,14 @@ def main() -> int:
         require(chain >= 2, f"no chain fits shared memory at {label}")
         check_gl(label, att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop, taps_s, w_s, mom,
                  args.seed + n_fft + hop, 1e-4, errs, chain=chain)
+    # C and D on the FFT route at the other powers of two it takes (hop
+    # n_fft / 4, at least the kernels' 32; 4096/2048 the widest hop), and on
+    # the product route (n_fft no power of two: 768/192)
+    for n_fft, hop in ((64, 32), (128, 32), (256, 64), (512, 128), (2048, 512), (4096, 2048), (768, 192)):
+        w_s = get_window("hann", n_fft, device=dev)
+        check_gl(f"{n_fft}/{hop} hann", att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop,
+                 taps_for_window(w_s), w_s, mom, args.seed + 3 * n_fft + hop, 1e-4, errs,
+                 chain=glstep.gl_max_chain(n_fft, hop, 4))
     # E and F: the full-K front end under the DGT's gaussian window.  Main
     # shape without mel (the DGT chain's configuration), then a dense mel
     # bank, the power spectrogram, and the framings with tiles of 32 and 16
@@ -2113,11 +2268,15 @@ def main() -> int:
     # I: the projection alone.  It is the step kernel without its momentum
     # update, so it must equal C's projection from tprev = 0 bit for bit;
     # against the plain version interior frames within 1e-4, and (hann's edge
-    # frames are ill-conditioned, Queue 3) edge frames no further off the
-    # float64 oracle than 10 times the plain version is
+    # frames are ill-conditioned on the product route, Queue 3) edge frames
+    # no further off the float64 oracle than 10 times the plain version is;
+    # on the FFT route every frame within 1e-6 of the plain version (measured
+    # bit-identical) and 1e-5 of the oracle
     def check_project(name, mag, n_fft, hop, wname, seed):
         w_s = get_window(wname, n_fft, device=dev)
         taps_s = taps_for_window(w_s)
+        route = "fft" if ff.fft_covers(n_fft) else "product"
+        glstep.reset_launches()
         g = torch.Generator(device=dev).manual_seed(seed)
         ph = 2 * math.pi * torch.rand(mag.shape, generator=g, device=dev)
         are, aim = torch.cos(ph), torch.sin(ph)
@@ -2142,10 +2301,23 @@ def main() -> int:
             f"equal to C's projection from tprev = 0: {same}")
         require(all(torch.isfinite(t).all().item() for t in rk), f"I {name}: not finite")
         require(e_in <= 1e-4 and e_k <= max(1e-4, 10 * e_p) and same, f"I {name} disagrees")
-        errs["I"] = max(errs.get("I", 0.0), max(abs_err(rk[i][:, m:-m], rp[i][:, m:-m]) for i in (0, 1)))
+        require(glstep.routes[f"gl_project:{route}"] == 1, f"I {name}: not on the {route} route")
+        if route == "fft":
+            e_all = max(abs_err(rk[i], rp[i]) for i in (0, 1)) / scale
+            bit = torch.equal(rk[0], rp[0]) and torch.equal(rk[1], rp[1])
+            log(f"  I {name} (fft route): every frame vs plain {e_all:.3e} (tol 1e-06; bit-identical {bit}), "
+                f"vs float64 oracle {e_k:.3e} (tol 1e-05)")
+            require(e_all <= 1e-6 and e_k <= 1e-5, f"I {name}: the FFT route out of budget")
+        key = "I" if route == "fft" else "I_product"
+        errs[key] = max(errs.get(key, 0.0), max(abs_err(rk[i][:, m:-m], rp[i][:, m:-m]) for i in (0, 1)))
 
     check_project("main shape", gl_mag, N_FFT, HOP, "hann", args.seed + 31)
     check_project("512/128", mag_rag, 512, 128, "hamming", args.seed + 32)
+    for n_fft, hop, wname in ((64, 32, "hann"), (256, 64, "blackman"), (2048, 512, "hann"), (4096, 2048, "hann"),
+                              (768, 192, "hann")):
+        w_s = get_window(wname, n_fft, device=dev)
+        check_project(f"{n_fft}/{hop}", att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop, wname,
+                      args.seed + 5 * n_fft + hop)
 
     # J: the full-K momentum step under the DGT's gaussian (w >= 0.01, so
     # every frame is well conditioned): against the plain version (fp32 sums
@@ -2256,6 +2428,12 @@ def main() -> int:
         f"{fitted[1].gl_iterations} iterations) {1e3 * (t2 - t1):.1f} ms; launches {counts}")
     for k in ("fused_melspec", "fused_melspec_stats", "gl_momentum_step", "gl_momentum_chain"):
         require(counts[k] > 0, f"kernel {k} was not launched on the main path")
+    log(f"  C and D by route: { {k: v for k, v in glstep.routes.items() if v} }")
+    for k in ("gl_momentum_step", "gl_momentum_chain"):
+        require(glstep.routes[k + ":fft"] == counts[k] and glstep.routes[k + ":product"] == 0,
+                f"{k}: the main path's launches must all take the FFT route")
+        counts[k + ":fft"] = glstep.routes[k + ":fft"]
+        counts[k + ":product"] = 0      # the product route's launches: phase 4h
     n_frames = 1 + L // HOP
     require(tuple(y.shape) == (B, n_frames, N_FFT // 2 + 1), f"log-mel shape {tuple(y.shape)}")
     require(torch.isfinite(y).all().item(), "log-mel not finite")
@@ -2524,6 +2702,7 @@ def main() -> int:
     # I has no caller on any of the main paths: its launches there, all summed
     counts["gl_project"] = sum(c["gl_project"] for c in (counts, dgt_counts, r_counts, p_counts, gl_counts))
     require(counts["gl_project"] == 0, "gl_project was launched on a main path")
+    counts["gl_project:fft"] = counts["gl_project:product"] = 0
     require(tuple(rec_gl.shape) == (B, 1, HOP * (n_frames - 1)) and torch.isfinite(rec_gl).all().item(),
             f"pghi_gl audio {tuple(rec_gl.shape)}")
     s_j = dgt_convergence(rec_gl.squeeze(-2), dgt_target)
@@ -2617,6 +2796,50 @@ def main() -> int:
     # division, mag * angles (2 per bin), u and its normalisation (10 per bin)
     gl_need = 2 * fft_flops + B * Tn * (3.0 * N_FFT + 12.0 * F)
     gl_flops = 2 * chunk_flops + 2 * combine_flops + 10.0 * B * Tn * F
+    # C and D on the FFT route: per block of c_tile frames, frames_irfft of
+    # c_tile + 2 overlap frames (the neighbours' frames synthesized again)
+    # and frames_rfft of the tile's frames (fft_design_flops), mag * angles
+    # and the update (12 per bin), the leak and the envelope (3 per sample).
+    # Their product route's rows at 768/192 (n_fft no power of two) on the
+    # same clips: that design's chunk products and taps conv, as above; the
+    # chain's halo recomputed.
+    c_tile = glstep._step_fft_plan(N_FFT, HOP)[0]
+    c_blocks = B * -(-Tn // c_tile)
+    c_flops = (fft_design_flops(N_FFT, c_blocks * (c_tile + 2 * ov)) + fft_design_flops(N_FFT, B * Tn)
+               + 12.0 * B * Tn * F + 3.0 * B * (Tn + ov - 1) * HOP)
+    n_fft_g, hop_g = 768, 192
+    w_g = get_window("hann", n_fft_g, device=dev)
+    taps_g = taps_for_window(w_g)
+    mag_g = att.ops.stft(mono, n_fft_g, hop_g, w_g).abs()
+    Tg, Fg, ov_g = mag_g.shape[1], mag_g.shape[2], n_fft_g // hop_g
+    gg = torch.Generator(device=dev).manual_seed(args.seed + 55)
+    ph_g = 2 * math.pi * torch.rand(mag_g.shape, generator=gg, device=dev)
+    g_st = (torch.cos(ph_g), torch.sin(ph_g), torch.zeros_like(ph_g), torch.zeros_like(ph_g))
+    del ph_g
+    env_g = glstep._env_rows(Tg, n_fft_g, hop_g, w_g)
+    chain_g = glstep.gl_max_chain(n_fft_g, hop_g, 4)
+    step1_g = glstep.make_gl_momentum_step(mag_g, n_fft_g, hop_g, taps_g, w_g, mom)[0]
+    step4_g = glstep.make_gl_momentum_step(mag_g, n_fft_g, hop_g, taps_g, w_g, mom, iters=chain_g)[0]
+    el_g = float(B * Tg * Fg)
+    fft_g = 2.5 * n_fft_g * math.log2(n_fft_g) * B * Tg
+    gl_bytes_g = 9.0 * 4 * el_g + 4.0 * (Tg + ov_g - 1) * hop_g
+    gl_need_g = 2 * fft_g + B * Tg * (3.0 * n_fft_g + 12.0 * Fg)
+    gl_flops_g = (2 * 4.0 * B * (Tg + ov_g - 1) * hop_g * Fg + 2 * 8.0 * el_g * ov_g
+                  + 2 * 4.0 * el_g * (2 * len(taps_g) - 1) + 10.0 * el_g)
+    g_tile = glstep._pick_tile(Tg, chain_g, ov_g, hop_g)
+    gl_flops_g_chain = gl_flops_g * (g_tile + 2 * (ov_g - 1) * (chain_g - 1)) / g_tile
+
+    def lib_gl_g(iters):
+        a = torch.complex(g_st[0], g_st[1])
+        tp = torch.complex(g_st[2], g_st[3])
+        for _ in range(iters):
+            sig = torch.istft((mag_g * a).transpose(-2, -1), n_fft_g, hop_g, window=w_g)
+            reb = torch.stft(sig, n_fft_g, hop_g, window=w_g, center=True, pad_mode="reflect",
+                             return_complex=True).transpose(-2, -1)
+            u = reb - mom * tp
+            a, tp = u / u.abs().clamp_min(1e-16), reb
+        return a, tp
+
     specs = [
         dict(key="A", name="fused_melspec", source="acids_transforms_tpu_torch/csrc/spectral.cu",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:732",
@@ -2634,24 +2857,40 @@ def main() -> int:
              library=lib_stats,
              bound=bound_of(4.0 * B * L, stats_flops),
              ceiling=ceiling_of(chunk_flops + combine_flops + 8.0 * B * Tn * F)),
-        dict(key="C", name="gl_momentum_step", source="acids_transforms_tpu_torch/csrc/glstep.cu",
+        dict(key="C", name="gl_momentum_step", front_end="fft",
+             source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:294",
-             launches=counts["gl_momentum_step"],
+             launches=counts["gl_momentum_step:fft"],
              run=lambda: step1(*gl_state),
              plain=lambda: glstep.gl_momentum_step_reference(
                  gl_mag, *gl_state, gl_env, N_FFT, HOP, taps_main, mom, 1),
              library=lambda: lib_gl(1),
              bound=bound_of(gl_bytes, gl_need),
-             ceiling=ceiling_of(gl_flops)),
-        dict(key="D", name="gl_momentum_chain", source="acids_transforms_tpu_torch/csrc/glstep.cu",
+             ceiling=ceiling_of(c_flops)),
+        dict(key="C_product", name="gl_momentum_step_product", front_end="product",
+             source="acids_transforms_tpu_torch/csrc/glstep.cu", replaces="acids_transforms_tpu/ops/pallas/glstep.py:294",
+             launches=counts["gl_momentum_step:product"],
+             run=lambda: step1_g(*g_st),
+             plain=lambda: glstep.gl_momentum_step_reference(mag_g, *g_st, env_g, n_fft_g, hop_g, taps_g, mom, 1),
+             library=lambda: lib_gl_g(1), bound=bound_of(gl_bytes_g, gl_need_g), ceiling=ceiling_of(gl_flops_g)),
+        dict(key="D", name="gl_momentum_chain", front_end="fft",
+             source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:326",
-             launches=counts["gl_momentum_chain"],
+             launches=counts["gl_momentum_chain:fft"],
              run=lambda: step4(*gl_state),
              plain=lambda: glstep.gl_momentum_step_reference(
                  gl_mag, *gl_state, gl_env, N_FFT, HOP, taps_main, mom, 4),
              library=lambda: lib_gl(4),
              bound=bound_of(gl_bytes, 4 * gl_need),
-             ceiling=ceiling_of(4 * gl_flops)),
+             ceiling=ceiling_of(4 * c_flops)),
+        dict(key="D_product", name="gl_momentum_chain_product", front_end="product",
+             source="acids_transforms_tpu_torch/csrc/glstep.cu", replaces="acids_transforms_tpu/ops/pallas/glstep.py:326",
+             launches=counts["gl_momentum_chain:product"],
+             run=lambda: step4_g(*g_st),
+             plain=lambda: glstep.gl_momentum_step_reference(mag_g, *g_st, env_g, n_fft_g, hop_g, taps_g, mom,
+                                                             chain_g),
+             library=lambda: lib_gl_g(chain_g), bound=bound_of(gl_bytes_g, chain_g * gl_need_g),
+             ceiling=ceiling_of(chain_g * gl_flops_g_chain)),
     ]
     # ---- the DGT path's kernels.  E and F: the same function as A and B
     # under another window (no mel), so the same bound.  On the main path they
@@ -2882,6 +3121,10 @@ def main() -> int:
         return torch.stft(sig, N_FFT, HOP, window=window, center=True, pad_mode="reflect",
                           return_complex=True)
 
+    def lib_project_g():
+        sig = torch.istft((mag_g * torch.complex(g_st[0], g_st[1])).transpose(-2, -1), n_fft_g, hop_g, window=w_g)
+        return torch.stft(sig, n_fft_g, hop_g, window=w_g, center=True, pad_mode="reflect", return_complex=True)
+
     # J at the D' shape: the DGT target magnitudes and a random state;
     # bytes and operations as C's (nine arrays; two FFTs and the momentum).
     # Its FFT route runs, per block of tile_t frames, frames_irfft of tile_t
@@ -2969,12 +3212,21 @@ def main() -> int:
              plain=lambda: spectral.fused_repr_stats_reference(mono, n_fft_p, hop_p, "if", taps=None, window=w_p),
              library=lambda: lib_repr_stats(stft_p(), "if"), bound=bound_of(4.0 * B * L, hif_need_p),
              ceiling=ceiling_of(fullk_p * (Tp + 1) / Tp + 44.0 * el_p)),
-        dict(key="I", name="gl_project", source="acids_transforms_tpu_torch/csrc/glstep.cu",
+        dict(key="I", name="gl_project", front_end="fft",
+             source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:236",
-             launches=counts["gl_project"],
+             launches=counts["gl_project:fft"],
              run=lambda: glstep.gl_project(gl_mag, *i_state, N_FFT, HOP, taps_main, window),
              plain=lambda: glstep.gl_project_reference(gl_mag, *i_state, N_FFT, HOP, taps_main, window),
-             library=lib_project, bound=bound_of(i_bytes, i_need), ceiling=ceiling_of(gl_flops - 10.0 * n_el)),
+             library=lib_project, bound=bound_of(i_bytes, i_need), ceiling=ceiling_of(c_flops - 10.0 * n_el)),
+        dict(key="I_product", name="gl_project_product", front_end="product",
+             source="acids_transforms_tpu_torch/csrc/glstep.cu", replaces="acids_transforms_tpu/ops/pallas/glstep.py:236",
+             launches=counts["gl_project:product"],
+             run=lambda: glstep.gl_project(mag_g, g_st[0], g_st[1], n_fft_g, hop_g, taps_g, w_g),
+             plain=lambda: glstep.gl_project_reference(mag_g, g_st[0], g_st[1], n_fft_g, hop_g, taps_g, w_g),
+             library=lib_project_g, bound=bound_of(5.0 * 4 * el_g + 4.0 * (Tg + ov_g - 1) * hop_g,
+                                                   2 * fft_g + B * Tg * (3.0 * n_fft_g + 2.0 * Fg)),
+             ceiling=ceiling_of(gl_flops_g - 10.0 * el_g)),
         dict(key="J", name="gl_momentum_fullk", front_end="fft",
              source="acids_transforms_tpu_torch/csrc/glstep_fullk.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:571",
@@ -3015,12 +3267,12 @@ def main() -> int:
     sx, s_rt, s_mags, s_ang, n_sf = (stream[k] for k in ("sx", "rt", "mags", "angles", "n_frames"))
     SB = sx.shape[0]
     s_ops = ss._encode_operands(s_rt.window, N_FFT)
-    s_syn = ss._syn_basis(s_rt.inv_window, float(ov), N_FFT, HOP)
+    s_syn = ss._decode_operands(s_rt.inv_window, float(ov), N_FFT, HOP)
     s_fr = float(SB * n_sf)
     s_fft = 2.5 * N_FFT * math.log2(N_FFT) * s_fr
     s_in, s_out, s_spec = 4.0 * SB * STREAM_LEN, 4.0 * SB * n_sf * HOP, 8.0 * s_fr * F
     kn, kp, n_ct = ss._k_analysis(N_FFT), ss._k_padded(F), -(-F // 128)
-    r_rt, r_dec = ss._roundtrip_plan(N_FFT, HOP)[0], ss._pick_rows("decode", N_FFT, HOP)
+    r_rt, r_dec = ss._roundtrip_plan(N_FFT, HOP)[0], ss._decode_plan(N_FFT, HOP)[0]
     t_rt, t_dec = -(-n_sf // r_rt), -(-n_sf // r_dec)
     s_rt_ops = ss._Session(stream["chain"], STREAM_CHUNK // HOP).roundtrip_operands()
 
@@ -3078,6 +3330,18 @@ def main() -> int:
                                      stride=(1, HOP))
         return y.reshape(SB, -1)[:, : n_sf * HOP]
 
+    # P and S on the FFT route: per block of r_dec chunks, frames_irfft of
+    # r_dec + 2 overlap frames (fft_design_flops); their product route at
+    # 1200/300: the synthesis product of 8 ceil(R / 8) chunks x overlap x Kp x
+    # hop per block of R chunks
+    dec_design = fft_design_flops(N_FFT, SB * t_dec * (r_dec + 2 * ov))
+    q_dec_ops = ss._decode_operands(q_rt.inv_window, float(ov_q), n_fft_q, hop_q)
+    q_spec = lib_encode_q().transpose(1, 2).contiguous()
+    q_mags = q_spec.abs().contiguous()
+    q_spec_ri = torch.view_as_real(q_spec).contiguous()
+    r_dq = ss._decode_plan(n_fft_q, hop_q)[0]
+    q_dec_design = 2.0 * SB * -(-T_q // r_dq) * 8 * -(-r_dq // 8) * ov_q * ss._k_padded(F_q) * hop_q
+
     stream_src = "acids_transforms_tpu_torch/csrc/stream_step.cu"
     stream_tpu = "acids_transforms_tpu/ops/pallas/stream_step.py"
     specs += [
@@ -3124,13 +3388,20 @@ def main() -> int:
              library=lambda: lib_synth_q(torch.polar(lib_encode_q().transpose(1, 2).abs(), q_ang)),
              bound=bound_of(s_in + q_out + 4.0 * q_fr * F_q, q_need + 26.0 * q_fr * F_q),
              ceiling=ceiling_of(q_design + 26.0 * q_fr * F_q)),
-        dict(key="P", name="session_random_decode", source=stream_src, replaces=stream_tpu + ":1328",
-             launches=counts["session_random_decode"],
+        dict(key="P", name="session_random_decode", source=stream_src + " (+ csrc/fft_smem.cuh)", front_end="fft",
+             replaces=stream_tpu + ":1328", launches=counts["session_random_decode:fft"],
              run=lambda: ss._launch_decode(s_mags, s_ang, s_syn, N_FFT, HOP),
              plain=lambda: ss.session_decode_reference(s_mags, s_ang, s_rt.inv_window, float(ov), N_FFT, HOP),
              library=lambda: lib_synth(torch.polar(s_mags, s_ang)),
              bound=bound_of(8.0 * s_fr * F + s_out, s_fft + 2.0 * N_FFT * s_fr + 22.0 * s_fr * F),
-             ceiling=ceiling_of(syn_flops(t_dec, r_dec) + 22.0 * s_fr * F)),
+             ceiling=ceiling_of(dec_design + 22.0 * s_fr * F)),
+        dict(key="P_product", name="session_random_decode_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
+             front_end="product", replaces=stream_tpu + ":1328", launches=counts["session_random_decode:product"],
+             run=lambda: ss._launch_decode(q_mags, q_ang, q_dec_ops, n_fft_q, hop_q),
+             plain=lambda: ss.session_decode_reference(q_mags, q_ang, q_rt.inv_window, float(ov_q), n_fft_q, hop_q),
+             library=lambda: lib_synth_q(torch.polar(q_mags, q_ang)),
+             bound=bound_of(8.0 * q_fr * F_q + q_out, q_fft + 2.0 * n_fft_q * q_fr + 22.0 * q_fr * F_q),
+             ceiling=ceiling_of(q_dec_design + 22.0 * q_fr * F_q)),
     ]
     # ---- the RT-PGHI sessions and the complex decode (phase 4g's shape).
     # The magnitude encode: R's analysis, |X| written instead of (re, im), the
@@ -3166,13 +3437,20 @@ def main() -> int:
              plain=lambda: ss.rt_pghi_phases_reference(rt_mag, rt_ang, *rt_args), plain_once=True,
              library=None, bound=bound_of(4.0 * s_fr * F * (2.0 + rt_silent), 150.0 * s_fr * F),
              ceiling=ceiling_of(150.0 * s_fr * F)),
-        dict(key="S", name="session_complex_decode", source=stream_src, replaces=stream_tpu + ":1803",
-             launches=counts["session_complex_decode"],
+        dict(key="S", name="session_complex_decode", source=stream_src + " (+ csrc/fft_smem.cuh)", front_end="fft",
+             replaces=stream_tpu + ":1803", launches=counts["session_complex_decode:fft"],
              run=lambda: ss._launch_decode(rt_spec_ri, None, s_syn, N_FFT, HOP),
              plain=lambda: ss.session_complex_decode_reference(rt_spec, s_rt.inv_window, float(ov), N_FFT, HOP),
              library=lambda: lib_synth(rt_spec),
              bound=bound_of(8.0 * s_fr * F + s_out, s_fft + 2.0 * N_FFT * s_fr),
-             ceiling=ceiling_of(syn_flops(t_dec, r_dec))),
+             ceiling=ceiling_of(dec_design)),
+        dict(key="S_product", name="session_complex_decode_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
+             front_end="product", replaces=stream_tpu + ":1803", launches=counts["session_complex_decode:product"],
+             run=lambda: ss._launch_decode(q_spec_ri, None, q_dec_ops, n_fft_q, hop_q),
+             plain=lambda: ss.session_complex_decode_reference(q_spec, q_rt.inv_window, float(ov_q), n_fft_q, hop_q),
+             library=lambda: lib_synth_q(q_spec),
+             bound=bound_of(8.0 * q_fr * F_q + q_out, q_fft + 2.0 * n_fft_q * q_fr),
+             ceiling=ceiling_of(q_dec_design)),
     ]
     # ---- O (phase 4g's pghi_gl shape: one chunk's grid of gl_context 3 +
     # 16 frames, 64 sessions; the port pads it with 3 zero frames, which the
@@ -3214,23 +3492,49 @@ def main() -> int:
     g_upd = g_rows - (g_hi - g_lo)          # rows the analysis computes and writes
     g_el = float(SB * g_upd * F)
     g_samples = 4.0 * SB * (g_tp - g_ctx) * HOP
-    g_tiles = -(-g_tp // ss.PROJECT_SYN_ROWS)
+    g_rows_syn = ss._decode_plan(N_FFT, HOP, ss.PROJECT_SYN_ROWS)[0]
+    g_tiles = -(-g_tp // g_rows_syn)
+    # O's synthesis on the product route: a grid of 3 pinned + 8 + 3 zero
+    # frames at 1200/300 (phase 4h's sessions), random magnitudes and phases
+    gq_tp = g_ctx + 8 + ov_q - 1
+    gq_g = torch.Generator(device=dev).manual_seed(args.seed + 56)
+    gm_q = torch.rand((SB, gq_tp, F_q), generator=gq_g, device=dev)
+    gm_q[:, -(ov_q - 1):] = 0.0
+    gp_q = 2 * math.pi * torch.rand((SB, gq_tp, F_q), generator=gq_g, device=dev)
+    gq_ops = ss._decode_operands(q_rt.inv_window, float(ov_q), n_fft_q, hop_q)
+    gq_fr = float(SB * (gq_tp - (ov_q - 1)))
+
+    def lib_proj_synth_q():
+        fr = torch.fft.irfft(torch.polar(gm_q, gp_q), n=n_fft_q) * (q_rt.inv_window / ov_q)
+        y = torch.nn.functional.fold(fr.transpose(1, 2), (1, (gq_tp - 1) * hop_q + n_fft_q), (1, n_fft_q),
+                                     stride=(1, hop_q))
+        return y.reshape(SB, -1)[:, : gq_tp * hop_q]
     s_m, s_prev, s_pp, s_a = (gl_stream[k] for k in ("m", "prev", "pp", "a"))
     s_tt = s_m.shape[1]
     rs_args = (g_rt.gamma, N_FFT, HOP, g_rt.tolerance, s_tt)
     s_silent = (s_m <= torch.clamp_min(g_rt.tolerance * s_m.amax(dim=(1, 2), keepdim=True), 1.19e-7)).float()
     s_silent = s_silent.mean().item()
     specs += [
-        dict(key="Osyn", name="gl_project_synthesis", source=stream_src,
-             replaces=stream_tpu + ":940", launches=counts["gl_project_synthesis"],
+        dict(key="Osyn", name="gl_project_synthesis", source=stream_src + " (+ csrc/fft_smem.cuh)", front_end="fft",
+             replaces=stream_tpu + ":940", launches=counts["gl_project_synthesis:fft"],
              run=lambda: ss._launch_decode(gm, gp, g_syn, N_FFT, HOP, rows=ss.PROJECT_SYN_ROWS,
                                            name="gl_project_synthesis"),
-             plain=lambda: ss._synthesize(gm * torch.cos(gp), gm * torch.sin(gp), g_rt.inv_window, float(ov),
-                                          N_FFT, HOP, g_tp),
+             plain=lambda: ss._synthesis_reference(gm * torch.cos(gp), gm * torch.sin(gp), g_rt.inv_window,
+                                                   float(ov), N_FFT, HOP, g_tp),
              library=lib_proj_synth,
              bound=bound_of(8.0 * g_fr * F + g_samples,
                             2.5 * N_FFT * math.log2(N_FFT) * g_fr + N_FFT * g_fr + 22.0 * g_fr * F),
-             ceiling=ceiling_of(syn_flops(g_tiles, ss.PROJECT_SYN_ROWS))),
+             ceiling=ceiling_of(fft_design_flops(N_FFT, SB * g_tiles * (g_rows_syn + 2 * ov)) + 22.0 * g_fr * F)),
+        dict(key="Osyn_product", name="gl_project_synthesis_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
+             front_end="product", replaces=stream_tpu + ":940", launches=counts["gl_project_synthesis:product"],
+             run=lambda: ss._launch_decode(gm_q, gp_q, gq_ops, n_fft_q, hop_q, rows=ss.PROJECT_SYN_ROWS,
+                                           name="gl_project_synthesis"),
+             plain=lambda: ss._synthesis_reference(gm_q * torch.cos(gp_q), gm_q * torch.sin(gp_q), q_rt.inv_window,
+                                                   float(ov_q), n_fft_q, hop_q, gq_tp),
+             library=lib_proj_synth_q,
+             bound=bound_of(8.0 * gq_fr * F_q + 4.0 * SB * (gq_tp - g_ctx) * hop_q,
+                            2.5 * n_fft_q * math.log2(n_fft_q) * gq_fr + n_fft_q * gq_fr + 22.0 * gq_fr * F_q),
+             ceiling=ceiling_of(2.0 * SB * -(-gq_tp // 8) * 8 * ov_q * ss._k_padded(F_q) * hop_q + 22.0 * gq_fr * F_q)),
         dict(key="Oana", name="gl_project_analysis", source=stream_src,
              replaces=stream_tpu + ":940", launches=counts["gl_project_analysis"],
              run=lambda: ss._launch_project_analysis(g_y, g_scratch, g_wc, g_ws, N_FFT, HOP, g_tx, g_ctx,

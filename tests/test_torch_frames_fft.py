@@ -184,7 +184,10 @@ def test_no_route_counted_on_the_cpu():
     assert set(PK.routes) == {"session_encode:fft", "session_encode:product",
                               "session_magnitude:fft", "session_magnitude:product",
                               "session_roundtrip:fft", "session_roundtrip:product",
-                              "session_random_roundtrip:fft", "session_random_roundtrip:product"}
+                              "session_random_roundtrip:fft", "session_random_roundtrip:product",
+                              "session_random_decode:fft", "session_random_decode:product",
+                              "session_complex_decode:fft", "session_complex_decode:product",
+                              "gl_project_synthesis:fft", "gl_project_synthesis:product"}
     assert set(SP.routes) == {"fused_melspec_fullk:fft", "fused_melspec_fullk:product",
                               "fused_melspec_stats_fullk:fft", "fused_melspec_stats_fullk:product",
                               "fused_spectral_repr_fullk:fft", "fused_spectral_repr_fullk:product",

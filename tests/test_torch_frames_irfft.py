@@ -287,4 +287,7 @@ def test_pghi_gl_on_the_fft_schedule_converges_like_the_eager_loop():
     assert s_k < max(1.15 * s_e, s_e + 0.02)
     assert s_k < sc(dgt.invert(torch.polar(m, ph)))               # the polish improves on the seed
     assert not any(PG.routes.values()) and set(PG.routes) == {"gl_momentum_fullk:fft",
-                                                              "gl_momentum_fullk:product"}
+                                                              "gl_momentum_fullk:product",
+                                                              "gl_momentum_step:fft", "gl_momentum_step:product",
+                                                              "gl_momentum_chain:fft", "gl_momentum_chain:product",
+                                                              "gl_project:fft", "gl_project:product"}
