@@ -28,6 +28,8 @@
 //   stream_step.cu:session_decode_fft_kernel       <- ops/pallas/stream_step.py:
 //       _session_random_invert_kernel (P), _session_complex_invert_kernel (S),
 //       the synthesis of _session_pghi_gl_kernel's projection (O): frames_irfft
+//   stream_step.cu:gl_polish_fft_kernel            <- ops/pallas/stream_step.py:
+//       _session_pghi_gl_kernel's projections (O): frames_irfft, then frames_rfft
 //
 // What they compute.  frames_rfft: X_r[k] = sum_n w[n] xs[r hop + n] e^{-2 pi
 // i n k / n} for k <= n / 2 of every frame r < n_frames of a sample buffer

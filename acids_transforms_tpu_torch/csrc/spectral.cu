@@ -4,7 +4,9 @@
 //   melspec_forward_kernel<.., kFrontFactored>  <- _forward_kernel_factored  (via _fused_call /
 //                                      fused_melspec)
 //   melspec_stats_kernel<.., kFrontFactored>    <- _stats_kernel_factored    (via _stats_call /
-//                                      fused_melspec_stats)
+//                                      fused_melspec_stats; where n_fft is a power of two
+//                                      from 64 to 4096 the wrapper sends it to the
+//                                      kFrontFft instance under the taps' own window)
 //   melspec_forward_kernel<.., kFrontFft / kFrontProduct>  <- _forward_kernel  (full-K: any
 //                                      window, taps=None)
 //   melspec_stats_kernel<.., kFrontFft / kFrontProduct>    <- _stats_kernel    (full-K)

@@ -16,10 +16,14 @@
 //   session_decode_fft_kernel<false / true>
 //                                    <- the same two (and O's projection synthesis) where
 //                                       n_fft is a power of two from 64 to 4096 (the FFT route)
+//   gl_polish_fft_kernel<.>          <- the Griffin-Lim polish of _session_pghi_gl_kernel (O):
+//                                       every projection of a chunk in one launch, where n_fft
+//                                       is a power of two from 64 to 4096 and the grid fits
 //   gl_project_analysis_kernel       <- the projection of _session_pghi_gl_kernel (O), its
 //                                       analysis and atan2; with session_decode_kernel<., false>
-//                                       as its synthesis and pghi.cu's recurrence (seeded) as
-//                                       its seed: make_fused_pghi_gl_roundtrip / _invert
+//                                       as its synthesis (every other shape); pghi.cu's
+//                                       recurrence (seeded) is O's seed:
+//                                       make_fused_pghi_gl_roundtrip / _invert
 //
 // What they compute.  A fresh session's frames are the contiguous slices
 // [t hop, t hop + n_fft) of the row-padded signal: (overlap - 1) hop zero
@@ -81,15 +85,21 @@
 // O (the pghi_gl sessions) is serial across chunks: chunk c + 1's seed and
 // pinned context are chunk c's polished phases, so no whole-session launch
 // can run it.  Its wrapper walks the chunks on the host, each chunk over the
-// whole batch of sessions: one seeded recurrence launch (pghi.cu), then per
-// Griffin-Lim iteration two launches over the extended grid of gl_context +
-// T_c + lookahead frames, P's synthesis into the grid's overlap-add signal
-// (narrow blocks, 8 hop chunks at 1024/256, so that a session fills several
-// SMs) and
-// gl_project_analysis_kernel (blocks of one session and one 128-bin tile); the
-// commit and the carries are a few small tensor operations, and P's synthesis
-// of every committed frame ends the session.  The phases of the grid stay in
-// one device array that the analysis updates in place.
+// whole batch of sessions: one seeded recurrence launch (pghi.cu), then the
+// polish of the extended grid of gl_context + T_c + lookahead frames (and
+// overlap - 1 zero frames).  Within a chunk the iterations do not depend on
+// the host (the pinned and frozen rows are fixed for the chunk) and the
+// sessions are independent, so where n_fft is a power of two from 64 to 4096
+// the polish is one launch, gl_polish_fft_kernel: a block per session runs
+// every iteration with the grid's overlap-add signal (and, where it fits, the
+// grid's magnitudes and phases) in shared memory, as the TPU kernel runs its
+// iterations in VMEM.  Elsewhere each iteration is two launches: P's synthesis
+// into the grid's overlap-add signal in device memory (narrow blocks, so that
+// a session fills several SMs) and gl_project_analysis_kernel (blocks of one
+// session and one 128-bin tile).  The commit and the carries are a few small
+// tensor operations, and P's synthesis of every committed frame ends the
+// session.  The phases of the grid stay in one device array that the polish
+// updates in place.
 #include <math.h>
 
 #include "dft_common.cuh"
@@ -583,6 +593,120 @@ __global__ void __launch_bounds__(kThreads) gl_project_analysis_kernel(GlProject
                    ct, ct + 1);
 }
 
+// O's polish on the FFT route (n_fft a power of two from 64 to 4096): one
+// block per session runs all `iters` projections of its grid of Tp = Tx +
+// overlap - 1 frames (the last overlap - 1 of zero magnitude).  Each:
+// * synthesis: frames_irfft of every grid frame, bins mag * (cos, sin)(phase)
+//   from one full-range sincosf, each product rounded on its own, under wsyn
+//   (the synthesis window / overlap / n_fft), overlap-added into the grid's
+//   signal y (Tp hop samples, shared memory, zeroed first): the decode's FFT
+//   route with one block over the whole grid (local frame r is frame r -
+//   (overlap - 1), paired (r, r + overlap) for r mod 2 overlap < overlap,
+//   frames before 0 zero bins and no samples, class order (f + overlap - 1)
+//   mod overlap), so its synthesis is P's to the bit;
+// * analysis: frames_rfft of the re-framed rows ctx .. Tx - 1 of y (frame f
+//   is y[f hop, f hop + n_fft), pairs (2j, 2j + 1) counted from ctx) under the
+//   analysis window, atan2f of each bin written to the grid's phase, except
+//   on the frozen rows [keep_lo, keep_hi); the pinned rows < ctx are never
+//   written.
+// frames_irfft and frames_rfft each start and end with a block barrier, so a
+// projection reads the phases the one before wrote.  kResident: the grid's
+// magnitudes and phases are read into shared memory once and the polished
+// rows written back once; otherwise they stay in device memory, the phases
+// read with __ldcg (L2: they are written in the launch) and written in place.
+// Bound by its chain of FFT rounds, not by bytes: the function moves the grid
+// once (2 Tp F floats in, (Tx - ctx) F out) and does iters x (Tp + Tx - ctx)
+// FFTs.  One block per session and __launch_bounds__(256, 1): the block holds
+// 160 KB at 1024/256 (22 frames, 4 FFTs side by side).
+struct GlPolishArgs {
+    const float* mag;     // (B, Tp, F)
+    float* phase;         // (B, Tp, F), rows ctx .. Tx - 1 outside [keep_lo, keep_hi) updated in place
+    const float* win;     // (n_fft,) analysis window
+    const float* wsyn;    // (n_fft,) synthesis window / overlap / n_fft
+    const float* fft_tw;  // (2, n_fft) twiddle table
+    int Tp, Tx, ctx, keep_lo, keep_hi, F, hop, overlap, iters, teams;
+};
+
+// The polish's block: y (Tp hop), frames_rfft's area, wsyn (n_fft), and where
+// resident the grid's magnitudes and phases (Tp F each).
+__host__ __device__ inline size_t polish_smem_floats(int Tp, int hop, int n_fft, int teams, bool resident) {
+    const int F = n_fft / 2 + 1;
+    return (size_t)Tp * hop + fft_smem_floats(n_fft, teams) + (size_t)n_fft +
+           (resident ? 2 * (size_t)Tp * F : 0);
+}
+
+template <bool kResident>
+__global__ void __launch_bounds__(kThreads, 1) gl_polish_fft_kernel(GlPolishArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    const long long b = blockIdx.x;
+    const int hop = a.hop, ov = a.overlap, m = a.overlap - 1, F = a.F, Tp = a.Tp;
+    const int n = ov * hop;
+    const int n_out = Tp * hop;
+    float* y = smem;  // 16-byte aligned: hop % 4 == 0
+    const FftSmem fs = carve_fft(y + (size_t)n_out, n);
+    float* wsyn = fs.buf + (size_t)a.teams * fft_buf_floats(n);
+    float* mag_s = wsyn + n;
+    float* ph_s = mag_s + (size_t)Tp * F;
+    const float* mag_g = a.mag + (size_t)b * Tp * F;
+    float* ph_g = a.phase + (size_t)b * Tp * F;
+    fft_stage(a.win, a.fft_tw, fs, n);
+    for (int i = threadIdx.x; i < n; i += kThreads) wsyn[i] = __ldg(a.wsyn + i);
+    if constexpr (kResident) {
+        for (int i = threadIdx.x; i < Tp * F; i += kThreads) {
+            mag_s[i] = __ldg(mag_g + i);
+            ph_s[i] = ph_g[i];
+        }
+    }
+    auto mag_at = [&](int i) -> float {
+        if constexpr (kResident) return mag_s[i];
+        else return __ldg(mag_g + i);
+    };
+    auto phase_at = [&](int i) -> float {
+        if constexpr (kResident) return ph_s[i];
+        else return __ldcg(ph_g + i);
+    };
+    float* ph_out = kResident ? ph_s : ph_g;
+    const int ctx = a.ctx, lo = a.keep_lo, hi = a.keep_hi;
+    for (int it = 0; it < a.iters; ++it) {
+        for (int i = threadIdx.x; i < n_out; i += kThreads) y[i] = 0.0f;
+        // frames_irfft starts with a barrier: y is zero and the last
+        // analysis's phases are visible; it ends with one
+        frames_irfft(
+            Tp + m, ov, n, fs, wsyn, a.teams,
+            [&](int r, int k, float& re, float& im) {
+                const int f = r - m;
+                if (f < 0) {
+                    re = 0.0f;
+                    im = 0.0f;
+                } else {
+                    const int i = f * F + k;
+                    const float mg = mag_at(i);
+                    float sn, cs;
+                    sincosf(phase_at(i), &sn, &cs);
+                    re = __fmul_rn(mg, cs);
+                    im = __fmul_rn(mg, sn);
+                }
+            },
+            [&](int r, int i, float v) {
+                const int pos = (r - m) * hop + i;
+                if (r >= m && pos < n_out) y[pos] = __fadd_rn(y[pos], v);
+            });
+        // frames_rfft starts with a barrier and ends with one
+        frames_rfft(y + (size_t)ctx * hop, a.Tx - ctx, hop, n, fs, a.teams,
+                    [&](int r, int k, float re, float im) {
+                        const int f = ctx + r;
+                        if (f < lo || f >= hi) ph_out[f * F + k] = atan2f(im, re);
+                    });
+    }
+    if constexpr (kResident) {
+        // frames_rfft's last barrier: every polished phase is in ph_s
+        for (int i = ctx * F + threadIdx.x; i < a.Tx * F; i += kThreads) {
+            const int f = i / F;
+            if (f < lo || f >= hi) ph_g[i] = ph_s[i];
+        }
+    }
+}
+
 template <typename K>
 static cudaError_t session_allow_smem(K kernel, size_t bytes) {
     return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -618,6 +742,10 @@ long long att_session_decode_smem_bytes(int rows, int overlap, int Kp) {
 
 long long att_session_decode_fft_smem_bytes(int rows, int hop, int n_fft, int teams) {
     return (long long)(att::decode_fft_smem_floats(rows, hop, n_fft, teams) * sizeof(float));
+}
+
+long long att_gl_polish_smem_bytes(int Tp, int hop, int n_fft, int teams, int resident) {
+    return (long long)(att::polish_smem_floats(Tp, hop, n_fft, teams, resident != 0) * sizeof(float));
 }
 
 // Kernel R (magnitude = 0) and the magnitude encode.  x (B, L) float32; out
@@ -816,6 +944,42 @@ int att_gl_project_analysis(const float* y, const float* wc, const float* ws, fl
     cudaError_t err = session_allow_smem(gl_project_analysis_kernel, smem);
     if (err != cudaSuccess) return (int)err;
     gl_project_analysis_kernel<<<(unsigned)(B * a.n_ct), kThreads, smem, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// O's polish (see gl_polish_fft_kernel).  mag, phase (B, Tp, F) float32, Tp =
+// Tx + overlap - 1; phase rows ctx .. Tx - 1 outside [keep_lo, keep_hi)
+// updated in place after `iters` projections, every other row untouched.
+// n_fft = overlap hop a power of two from 64 to 4096, F = n_fft / 2 + 1, hop a
+// multiple of 4; window (n_fft,) the analysis window, wsyn (n_fft,) the
+// synthesis window / overlap / n_fft, fft_tw (2, n_fft) = (cos, -sin)(2 pi j /
+// n_fft); 1 <= teams <= 4096 / n_fft; resident != 0 holds the grid in shared
+// memory.  Returns a cudaError_t.
+int att_gl_polish(const float* mag, float* phase, const float* window, const float* wsyn,
+                  const float* fft_tw, long long B, int Tp, int Tx, int ctx, int keep_lo, int keep_hi,
+                  int F, int hop, int overlap, int iters, int teams, int resident, void* stream) {
+    using namespace att;
+    const int n_fft = overlap * hop;
+    if (!session_args_ok(B, Tp, F, hop, overlap) || !fft_covers(n_fft) || F != n_fft / 2 + 1 ||
+        teams < 1 || teams > fft_max_teams(n_fft) || ctx < 0 || ctx >= Tx || Tx + overlap - 1 != Tp ||
+        iters < 1) {
+        return (int)cudaErrorInvalidValue;
+    }
+    GlPolishArgs a = {};
+    a.mag = mag; a.phase = phase; a.win = window; a.wsyn = wsyn; a.fft_tw = fft_tw;
+    a.Tp = Tp; a.Tx = Tx; a.ctx = ctx; a.keep_lo = keep_lo; a.keep_hi = keep_hi; a.F = F; a.hop = hop;
+    a.overlap = overlap; a.iters = iters; a.teams = teams;
+    const size_t smem = polish_smem_floats(Tp, hop, n_fft, teams, resident != 0) * sizeof(float);
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
+#define ATT_LAUNCH_POL(RES)                                                        \
+    do {                                                                           \
+        err = session_allow_smem(gl_polish_fft_kernel<RES>, smem);                 \
+        if (err != cudaSuccess) return (int)err;                                   \
+        gl_polish_fft_kernel<RES><<<(unsigned)B, kThreads, smem, s>>>(a);          \
+    } while (0)
+    if (resident) ATT_LAUNCH_POL(true); else ATT_LAUNCH_POL(false);
+#undef ATT_LAUNCH_POL
     return (int)cudaGetLastError();
 }
 

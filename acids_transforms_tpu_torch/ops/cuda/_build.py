@@ -253,6 +253,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, p,                      # F, hop, Kn, stream
     ]
     lib.att_gl_project_analysis.restype = i
+    lib.att_gl_polish_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.att_gl_polish_smem_bytes.restype = ll
+    lib.att_gl_polish.argtypes = [
+        p, p, p, p, p,                   # mag, phase, window, wsyn, fft_tw
+        ll, i, i, i, i, i,               # B, Tp, Tx, ctx, keep_lo, keep_hi
+        i, i, i, i, i, i, p,             # F, hop, overlap, iters, teams, resident, stream
+    ]
+    lib.att_gl_polish.restype = i
 
 
 def load_library() -> ctypes.CDLL:

@@ -54,7 +54,7 @@ from ..fft import _tables
 __all__ = [
     "FFT_MIN", "FFT_MAX", "fft_covers", "fft_twiddles", "fft_team_threads", "fft_max_teams",
     "fft_smem_floats", "frames_rfft_reference", "frames_irfft_reference", "irfft_window",
-    "overlap_add_classes", "class_plan",
+    "overlap_add_classes", "class_plan", "taps_window",
 ]
 
 FFT_MIN, FFT_MAX = 64, 4096       # the sizes frames_rfft takes (powers of two)
@@ -78,6 +78,18 @@ def fft_twiddles(n_fft: int) -> np.ndarray:
     float32 table, computed in float64 and rounded once."""
     ang = 2.0 * np.pi * np.arange(n_fft) / n_fft
     return np.stack([np.cos(ang), -np.sin(ang)]).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def taps_window(taps: Tuple[float, ...], n_fft: int) -> np.ndarray:
+    """The cosine-sum window of ``taps``, ``w[i] = taps[0] + 2 sum_{p >= 1}
+    taps[p] cos(2 pi p i / n_fft)``, built in float64 and rounded once: the
+    window the factored front end's taps conv applies, which the FFT route
+    applies in the time domain (the Griffin-Lim step C / D / I and the fit's
+    statistics B), so that both routes compute one function of the taps."""
+    ang = 2.0 * np.pi * np.arange(n_fft) / n_fft
+    w = sum((1.0 if p == 0 else 2.0) * c * np.cos(p * ang) for p, c in enumerate(taps))
+    return np.asarray(w, dtype=np.float32)
 
 
 def fft_team_threads(n_fft: int) -> int:

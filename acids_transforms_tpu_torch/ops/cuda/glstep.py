@@ -39,7 +39,7 @@ in-place re-framing, ``frames_rfft`` under the window; a chain is one
 cooperative launch with a barrier across the grid between iterations), with
 the window in the time domain, so the edge samples lose the amplified
 rounding described above; elsewhere the chunk products.  The window of the
-FFT route is the taps' own (:func:`_taps_window`), so both routes compute one
+FFT route is the taps' own (:func:`taps_window`), so both routes compute one
 function of the taps.  The taps conv reads the imaginary part of bin 0, which
 an inverse real FFT does not: the FFT route adds it back unwindowed to every
 sample of a frame, ``Im(Y_0)`` times :func:`_leak_table` (the oracle's
@@ -91,6 +91,7 @@ from .frames_fft import (
     frames_rfft_reference,
     irfft_window,
     overlap_add_classes,
+    taps_window,
 )
 from .spectral import _fullk_basis
 
@@ -209,7 +210,7 @@ def _fft_operands(taps, n_fft: int, dev):
     """What the FFT route reads besides the state: the taps' window, the
     synthesis window (it over ``n_fft``), the leak table and the twiddles."""
     taps = tuple(float(t) for t in taps)
-    (w,) = _tables(_taps_window, dev, taps, n_fft)
+    (w,) = _tables(taps_window, dev, taps, n_fft)
     (leak,) = _tables(_leak_table, dev, taps, n_fft)
     (tw,) = _tables(fft_twiddles, dev, n_fft)
     return w, irfft_window(w, n_fft).contiguous(), leak, tw
@@ -253,17 +254,6 @@ def _project(mag, are, aim, env, n_fft, hop, taps):
 
 
 @functools.lru_cache(maxsize=None)
-def _taps_window(taps: Tuple[float, ...], n_fft: int) -> np.ndarray:
-    """The cosine-sum window of ``taps``, ``w[i] = taps[0] + 2 sum_{p >= 1}
-    taps[p] cos(2 pi p i / n_fft)``, built in float64 and rounded once: the
-    window the taps conv applies, which the FFT route applies in the time
-    domain."""
-    ang = 2.0 * np.pi * np.arange(n_fft) / n_fft
-    w = sum((1.0 if p == 0 else 2.0) * c * np.cos(p * ang) for p, c in enumerate(taps))
-    return np.asarray(w, dtype=np.float32)
-
-
-@functools.lru_cache(maxsize=None)
 def _leak_table(taps: Tuple[float, ...], n_fft: int) -> np.ndarray:
     """``-(2 / n_fft) sum_{p >= 1} taps[p] sin(2 pi p i / n_fft)``, float64
     rounded once: what an imaginary part of 1 at bin 0 adds to sample ``i`` of
@@ -295,7 +285,7 @@ def _project_fft(mag, are, aim, env, n_fft, hop, taps):
     the un-trimmed signal, ``frames_rfft_reference`` (pairs ``(2j, 2j +
     1)``) under the taps' window."""
     taps = tuple(float(t) for t in taps)
-    (w,) = _tables(_taps_window, mag.device, taps, n_fft)
+    (w,) = _tables(taps_window, mag.device, taps, n_fft)
     (leak,) = _tables(_leak_table, mag.device, taps, n_fft)
     frames = _fft_frames(mag, are, aim, n_fft, hop, w)
     lam = mag[..., 0] * aim[..., 0]

@@ -21,7 +21,11 @@ power of two from 64 to 4096 the FFT route (``csrc/fft_smem.cuh:frames_rfft``,
 the window and a twiddle table, no basis; plain version
 ``frames_fft.frames_rfft_reference``), elsewhere the product route (a basis of
 ``n_fft x 2F`` with the window folded in, ``overlap`` times the multiply-adds
-of the factored form).  All need ``hop | n_fft``.
+of the factored form).  The statistics with ``taps`` (kernel B) take the same
+FFT route by the same rule, under the taps' own window
+(``frames_fft.taps_window``): F's instance computes B's function for any
+window.  The forward with ``taps`` (kernel A) stays factored: the rule is per
+launch kind (:func:`_kernel_plan`).  All need ``hop | n_fft``.
 
 ``fused_spectral_repr`` and ``fused_repr_stats`` are the two-channel twins
 (Polar, PolarIF, Cartesian): one DFT feeds channel 1 (``|X|`` through mel,
@@ -64,6 +68,7 @@ from .frames_fft import (
     fft_smem_floats,
     fft_twiddles,
     frames_rfft_reference,
+    taps_window,
 )
 
 __all__ = [
@@ -96,11 +101,15 @@ launches: Dict[str, int] = {
     "fused_repr_stats": 0, "fused_repr_stats_fullk": 0,
     "melspec_stage": 0,
 }
-#: the full-K kernels' launches by route, ``"<kernel>:fft"`` /
-#: ``"<kernel>:product"`` (each also counts in ``launches``)
+#: the launches by route, ``"<kernel>:fft"`` / ``"<kernel>:product"`` /
+#: ``"<kernel>:factored"`` (each also counts in ``launches``): the full-K
+#: kernels, and A and B with taps (B's statistics take the FFT route where
+#: ``fft_covers(n_fft)``, A stays factored)
 routes: Dict[str, int] = {
     "fused_melspec_fullk:fft": 0, "fused_melspec_fullk:product": 0,
     "fused_melspec_stats_fullk:fft": 0, "fused_melspec_stats_fullk:product": 0,
+    "fused_melspec:factored": 0, "fused_melspec_stats:fft": 0, "fused_melspec_stats:factored": 0,
+    "fused_spectral_repr:factored": 0, "fused_repr_stats:factored": 0,
     "fused_spectral_repr_fullk:fft": 0, "fused_spectral_repr_fullk:product": 0,
     "fused_repr_stats_fullk:fft": 0, "fused_repr_stats_fullk:product": 0,
 }
@@ -308,11 +317,16 @@ def _fullk_spectrum(x, n_fft, hop, center, window):
     return torch.matmul(frames, WC), torch.matmul(frames, WS)
 
 
-def _spectrum(x, n_fft, hop, center, taps, window):
-    """(re, im) of the front end and route the kernels take: the factored
-    front end with ``taps``, else the full-K one on its route."""
+def _spectrum(x, n_fft, hop, center, taps, window, stats: bool = False):
+    """(re, im) of the front end and route the kernels take: the full-K one
+    on its route without ``taps``; with them the factored front end, except
+    for the statistics (``stats``) where ``fft_covers(n_fft)``, which take
+    the FFT route's schedule under the taps' own window."""
     if taps is None:
         return _fullk_spectrum(x, n_fft, hop, center, window)
+    if stats and fft_covers(n_fft):
+        (w,) = _tables(taps_window, x.device, tuple(float(t) for t in taps), n_fft)
+        return _fullk_spectrum(x, n_fft, hop, center, w)
     return _factored_spectrum(x, n_fft, hop, center, taps)
 
 
@@ -376,10 +390,12 @@ def fused_melspec_stats_reference(
     taps: Optional[tuple] = None,
     window: Optional[torch.Tensor] = None,
 ) -> dict:
-    """Plain PyTorch version of :func:`fused_melspec_stats`."""
+    """Plain PyTorch version of :func:`fused_melspec_stats`, on the route the
+    kernel takes (with ``taps`` the FFT route's schedule under the taps' own
+    window where ``fft_covers(n_fft)``)."""
     x = x.reshape((-1, x.shape[-1]))
     _check_input(x, n_fft, hop_length, taps, window)
-    re, im = _spectrum(x, n_fft, hop_length, center, taps, window)
+    re, im = _spectrum(x, n_fft, hop_length, center, taps, window, stats=True)
     v = _apply_contrast(torch.sqrt(re * re + im * im), contrast)
     vd = v.double()
     return {
@@ -419,10 +435,14 @@ def _front_end(device, n_fft, hop, taps, window, *, fft: bool):
     """What the entry points take for the front end: the two basis tensors
     (None on the FFT route), the twiddle pointers (None for full-K), the taps
     array, ``P`` (-1 selects a full-K front end) and the FFT route's window
-    and twiddle table (None elsewhere).  ``fft``: the full-K front end takes
-    the FFT route."""
-    if taps is None and fft:
-        win = window.to(device=device, dtype=torch.float32).contiguous()
+    and twiddle table (None elsewhere).  ``fft``: the launch takes the FFT
+    route, under ``window``, or with ``taps`` under the taps' own window
+    (``taps_window``, float64 rounded once)."""
+    if fft:
+        if taps is None:
+            win = window.to(device=device, dtype=torch.float32).contiguous()
+        else:
+            (win,) = _tables(taps_window, device, tuple(float(t) for t in taps), n_fft)
         (tw,) = _tables(fft_twiddles, device, n_fft)
         return (None, None), None, None, (ctypes.c_float * 5)(), -1, (win, tw)
     if taps is None:
@@ -442,11 +462,13 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def _kernel_plan(n_fft, hop, taps) -> Tuple[int, int]:
-    """``(tile_t, teams)`` for this shape, ``teams = 0`` off the FFT route
-    (which ``taps=None`` and ``fft_covers(n_fft)`` select), or raise: the
-    kernels never give way."""
-    if taps is None and fft_covers(n_fft) and fused_melspec_available(n_fft, hop, taps):
+def _kernel_plan(n_fft, hop, taps, stats: bool = False) -> Tuple[int, int]:
+    """``(tile_t, teams)`` of the forward (A, E) or, ``stats``, the
+    statistics (B, F) for this shape, ``teams = 0`` off the FFT route, or
+    raise: the kernels never give way.  The FFT route takes every launch
+    where ``fft_covers(n_fft)``, except the forward with ``taps`` (A), which
+    stays on the factored front end; the rule is per launch kind."""
+    if (taps is None or stats) and fft_covers(n_fft) and fused_melspec_available(n_fft, hop, taps):
         plan = _pick_fft_plan(n_fft, hop)
         if plan is None:
             raise NotImplementedError(
@@ -560,9 +582,10 @@ def fused_melspec(
 
 
 def _count(name: str, taps, teams: int) -> None:
+    """One launch of ``name`` and its route: ``fft`` (``teams > 0``), else
+    ``product`` without taps and ``factored`` with them."""
     launches[name] += 1
-    if taps is None:
-        routes[name + (":fft" if teams else ":product")] += 1
+    routes[name + (":fft" if teams else ":product" if taps is None else ":factored")] += 1
 
 
 def fused_melspec_stats(
@@ -589,7 +612,7 @@ def fused_melspec_stats(
     if not x.is_cuda:
         return fused_melspec_stats_reference(x, n_fft, hop_length, contrast, center, taps, window)
     _check_input(x, n_fft, hop_length, taps, window)
-    tile_t, teams = _kernel_plan(n_fft, hop_length, taps)
+    tile_t, teams = _kernel_plan(n_fft, hop_length, taps, stats=True)
     if contrast not in _CONTRASTS:
         _apply_contrast(x, contrast)  # raises with the reason
     dev = x.device

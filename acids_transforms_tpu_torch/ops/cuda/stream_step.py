@@ -39,13 +39,19 @@ to three kernel launches instead of a Python loop of small ops per chunk
   serial across chunks (a chunk's seed and pinned context are the previous
   chunk's polished phases), so its wrapper walks the chunks on the host, each
   over the whole batch: the recurrence seeded with the carries
-  (``csrc/pghi.cu``, one launch), per iteration the projection's synthesis
-  (P's kernel with the basis divided by ``overlap``) and its analysis
-  (``gl_project_analysis_kernel``: the re-framed analysis, ``atan2``, the
-  kept rows left alone), then the commit and the carries in small tensor
-  operations; P's synthesis of every committed frame ends the session.  The
-  roundtrip runs the magnitude encode first.  :func:`gl_project_reference` is
-  the projection's plain version.
+  (``csrc/pghi.cu``, one launch), the polish (:func:`gl_polish`), then the
+  commit and the carries in small tensor operations; P's synthesis of every
+  committed frame ends the session.  The polish is one launch a chunk where
+  :func:`_polish_plan` takes the grid (``gl_polish_fft_kernel``: a block per
+  session runs all ``gl_iterations`` projections with the grid in shared
+  memory, ``frames_irfft`` into an overlap-add signal in shared memory, then
+  ``frames_rfft`` of the re-framed rows and ``atan2``; plain version
+  :func:`gl_polish_reference`), elsewhere two launches a projection: P's
+  kernel with the basis divided by ``overlap``, then
+  ``gl_project_analysis_kernel`` (the re-framed analysis as a product,
+  ``atan2``, the kept rows left alone; plain version
+  :func:`gl_project_reference`).  The roundtrip runs the magnitude encode
+  first.
 
 Why N is three launches and not one: the recurrence is serial per session, so
 one fused launch would hold both ``O(n_fft F)`` products to one block per
@@ -73,7 +79,8 @@ n_fft``; ``pghi_gl`` adds ``lookahead_frames <= T_c`` and ``0 < gl_context <=
 T_c``.  The overlap-add layout is the JAX package's
 (``pghi_kernel.ola_supported``) or any the session's kernels take, by their
 own limits: ``hop % 4 == 0``, a block that fits shared memory, at most 4096
-bins in the recurrence and 40 polished frames a chunk (:func:`kernel_covers`).
+bins in the recurrence, and a polish grid that the polish's block holds or 40
+polished frames a chunk (:func:`kernel_covers`).
 So only a shape that neither covers (hop 250) streams through the generic
 scan, as it does in the JAX package; a shape inside the JAX package's layouts
 but outside the kernels' limits raises ``NotImplementedError`` on a CUDA
@@ -148,10 +155,11 @@ __all__ = [
     "fused_complex_invert_available", "make_fused_complex_invert",
     "fused_pghi_gl_roundtrip_available", "make_fused_pghi_gl_roundtrip",
     "fused_pghi_gl_invert_available", "make_fused_pghi_gl_invert",
-    "kernel_covers", "session_rows", "session_angles", "rt_pghi_phases", "gl_project",
+    "kernel_covers", "session_rows", "session_angles", "rt_pghi_phases", "gl_project", "gl_polish",
     "session_encode_reference", "session_roundtrip_reference", "session_decode_reference",
     "session_magnitude_reference", "rt_pghi_phases_reference", "session_complex_decode_reference",
-    "gl_project_reference", "session_pghi_gl_reference", "launches", "routes", "reset_launches",
+    "gl_project_reference", "gl_polish_reference", "session_pghi_gl_reference", "launches", "routes",
+    "reset_launches",
 ]
 
 MAX_ROWS = 40                     # frames one block's analysis holds (8 warps x 5 rows)
@@ -162,12 +170,13 @@ _STAGE = 2 * 32 * 128             # floats of the staging area both phases share
 #: kernel launches made by the wrappers of this module, by kernel
 #: (``session_random_decode`` counts P's kernel, which is also the synthesis of
 #: the RT-PGHI sessions; O's launches of it as the projection's synthesis count
-#: as ``gl_project_synthesis``, the seeded recurrence as ``rt_pghi_seeded``)
+#: as ``gl_project_synthesis``, the seeded recurrence as ``rt_pghi_seeded``, the
+#: one-launch polish as ``gl_polish``)
 launches: Dict[str, int] = {
     "session_encode": 0, "session_roundtrip": 0,
     "session_random_roundtrip": 0, "session_random_decode": 0,
     "session_magnitude": 0, "rt_pghi_phases": 0, "session_complex_decode": 0,
-    "rt_pghi_seeded": 0, "gl_project_synthesis": 0, "gl_project_analysis": 0,
+    "rt_pghi_seeded": 0, "gl_project_synthesis": 0, "gl_project_analysis": 0, "gl_polish": 0,
 }
 #: the encode's, the roundtrips' and the decodes' launches by route,
 #: ``"<kernel>:fft"`` / ``"<kernel>:product"`` (each also counts in ``launches``)
@@ -178,7 +187,7 @@ routes: Dict[str, int] = {
     "session_random_roundtrip:fft": 0, "session_random_roundtrip:product": 0,
     "session_random_decode:fft": 0, "session_random_decode:product": 0,
     "session_complex_decode:fft": 0, "session_complex_decode:product": 0,
-    "gl_project_synthesis:fft": 0, "gl_project_synthesis:product": 0,
+    "gl_project_synthesis:fft": 0, "gl_project_synthesis:product": 0, "gl_polish:fft": 0,
 }
 
 
@@ -204,7 +213,8 @@ def _parts(chain):
     return oadd, rt
 
 
-def _gate(chain, chunk_size: int, kinds: Tuple[str, ...], rows: Optional[int] = None) -> bool:
+def _gate(chain, chunk_size: int, kinds: Tuple[str, ...], rows: Optional[int] = None,
+          ctx: Optional[int] = None) -> bool:
     """The structure every session kernel of this module covers: ``[OverlapAdd,
     RealtimeSTFT-family]`` with matching ``(n_fft, hop)``, ``hop | n_fft``, ``2
     <= overlap <= 8``, ``hop | chunk`` and ``chunk >= n_fft``; and an
@@ -226,7 +236,7 @@ def _gate(chain, chunk_size: int, kinds: Tuple[str, ...], rows: Optional[int] = 
         and 2 <= n_fft // hop <= MAX_OVERLAP
         and chunk_size % hop == 0
         and chunk_size >= n_fft
-        and (ola_supported(n_fft, hop) or all(kernel_covers(k, n_fft, hop, rows) for k in kinds))
+        and (ola_supported(n_fft, hop) or all(kernel_covers(k, n_fft, hop, rows, ctx) for k in kinds))
     )
 
 
@@ -288,8 +298,9 @@ def _gl_gate(chain, chunk_size: int, kinds: Tuple[str, ...]) -> bool:
     rt = parts[1]
     T_c = chunk_size // rt.hop_length
     la = int(rt.lookahead_frames)
-    return (0 <= la <= T_c and 0 < int(rt.gl_context) <= T_c
-            and _gate(chain, chunk_size, kinds + ("project",), T_c + la))
+    ctx = int(rt.gl_context)
+    return (0 <= la <= T_c and 0 < ctx <= T_c
+            and _gate(chain, chunk_size, kinds + ("project",), T_c + la, ctx))
 
 
 def fused_pghi_gl_roundtrip_available(chain, chunk_size: int) -> bool:
@@ -454,18 +465,61 @@ def _project_frames_fit(n_fft: int, hop: int, rows: int) -> bool:
     return 1 <= rows <= MAX_ROWS and _encode_smem_bytes(rows, hop, _k_analysis(n_fft)) <= MAX_SMEM
 
 
-def kernel_covers(kind: str, n_fft: int, hop: int, rows: Optional[int] = None) -> bool:
+def _two_launch_covers(n_fft: int, hop: int, rows: int) -> bool:
+    """Whether the two-launch projection (P's synthesis, then
+    ``gl_project_analysis_kernel``) takes ``rows`` polished frames."""
+    return kernel_covers("decode", n_fft, hop) and _project_frames_fit(n_fft, hop, int(rows))
+
+
+def _polish_smem_bytes(Tp: int, hop: int, n_fft: int, teams: int, resident: bool) -> int:
+    """Shared memory of one block of the polish (``gl_polish_fft_kernel``),
+    as ``csrc/stream_step.cu:polish_smem_floats`` lays it out: the grid's
+    overlap-add signal (``Tp hop``), ``frames_rfft``'s area, the synthesis
+    window, and where ``resident`` the grid's magnitudes and phases."""
+    n_bins = n_fft // 2 + 1
+    return 4 * (Tp * hop + fft_smem_floats(n_fft, teams) + n_fft + (2 * Tp * n_bins if resident else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _polish_plan(n_fft: int, hop: int, Tp: int) -> Optional[Tuple[int, bool]]:
+    """``(teams, resident)`` of the polish's launch for a grid of ``Tp``
+    frames (``gl_context + T_c + lookahead + overlap - 1``), or None, and then
+    the polish is ``gl_iterations`` two-launch projections.  It takes ``n_fft``
+    a power of two from 64 to 4096 (``fft_covers``), ``hop % 4 == 0``, ``2 <=
+    overlap <= 8`` and a block that fits shared memory: the grid's magnitudes
+    and phases in shared memory (``resident``) with the most FFTs side by side
+    that fit (``4096 / n_fft`` on 256 threads: 4 at 1024/256, a 160 KB block
+    at 22 frames), else read from and written to device memory.  The rule
+    reads the shape alone, never a failed launch."""
+    ov = n_fft // hop if hop else 0
+    if not fft_covers(n_fft) or hop % 4 or n_fft % hop or not 2 <= ov <= MAX_OVERLAP or Tp < ov:
+        return None
+    for resident in (True, False):
+        teams = fft_max_teams(n_fft)
+        while teams >= 1:
+            if _polish_smem_bytes(Tp, hop, n_fft, teams, resident) <= MAX_SMEM:
+                return teams, resident
+            teams //= 2
+    return None
+
+
+def kernel_covers(kind: str, n_fft: int, hop: int, rows: Optional[int] = None,
+                  ctx: Optional[int] = None) -> bool:
     """Whether the kernel of ``kind`` takes the shape: ``"encode"`` (R and the
     magnitude encode), ``"roundtrip"`` (L, M) and ``"decode"`` (P, S) need
     ``hop % 4 == 0`` (16-byte rows) and a block that fits shared memory;
     ``"recurrence"`` (RT-PGHI) at most 4096 bins, what one block holds;
-    ``"project"`` (O's projection analysis) P's limits and a grid of ``rows``
-    polished frames (``T_c + lookahead``) of at most 40 whose samples fit
-    shared memory."""
+    ``"project"`` (O's polish) a grid of ``ctx + rows + overlap - 1`` frames
+    that :func:`_polish_plan` takes (``rows = T_c + lookahead``; ``ctx``, the
+    pinned context, at most ``rows``: None counts it as ``rows``), or P's
+    limits and at most 40 polished frames whose samples fit shared memory
+    (the two-launch projection)."""
     if kind == "recurrence":
         return n_fft % hop == 0 and _bins_per_thread(n_fft // 2 + 1) is not None
     if kind == "project":
-        return kernel_covers("decode", n_fft, hop) and _project_frames_fit(n_fft, hop, int(rows))
+        rows = int(rows)
+        tp = (rows if ctx is None else int(ctx)) + rows + n_fft // hop - 1
+        return _polish_plan(n_fft, hop, tp) is not None or _two_launch_covers(n_fft, hop, rows)
     if kind == "encode":
         return hop % 4 == 0 and n_fft % hop == 0 and _encode_plan(n_fft, hop) is not None
     if kind == "decode":
@@ -473,18 +527,21 @@ def kernel_covers(kind: str, n_fft: int, hop: int, rows: Optional[int] = None) -
     return hop % 4 == 0 and n_fft % hop == 0 and _pick_rows(kind, n_fft, hop) is not None
 
 
-def _require(kind: str, n_fft: int, hop: int, rows: Optional[int] = None) -> Optional[int]:
+_PROJECT_NEED = ("hop % 4 == 0 and a grid (gl_context + T_c + lookahead + overlap - 1 frames) that the "
+                 "polish's block holds in shared memory at n_fft a power of two from 64 to 4096, or at "
+                 "most 40 polished frames (T_c + lookahead) whose samples fit shared memory")
+
+
+def _require(kind: str, n_fft: int, hop: int, rows: Optional[int] = None,
+             ctx: Optional[int] = None) -> Optional[int]:
     """The block height of ``kind`` (None for the recurrence and the
     projection; for the encode, the product route's: the FFT route's plan is
     :func:`_encode_plan`'s), or raise: a shape the structural gate lets
     through is never quietly computed some other way."""
-    if kernel_covers(kind, n_fft, hop, rows):
+    if kernel_covers(kind, n_fft, hop, rows, ctx):
         return None if kind in ("recurrence", "project") else _pick_rows(kind, n_fft, hop)
-    need = {
-        "recurrence": "at most 4096 bins",
-        "project": "hop % 4 == 0 and at most 40 polished frames (T_c + lookahead) whose "
-                   "samples fit shared memory",
-    }.get(kind, "hop % 4 == 0 and a block that fits shared memory")
+    need = {"recurrence": "at most 4096 bins", "project": _PROJECT_NEED}.get(
+        kind, "hop % 4 == 0 and a block that fits shared memory")
     raise NotImplementedError(
         "the CUDA session kernels do not cover n_fft=%d hop=%d (%s): they need "
         "%s (ROADMAP Queue 2, K10-K17); use backend='generic'" % (n_fft, hop, kind, need)
@@ -912,9 +969,62 @@ def gl_project_reference(mag, phase, inv_window, window, n_fft: int, hop: int, c
     return out
 
 
+def gl_polish_reference(mag, phase, inv_window, window, n_fft: int, hop: int, ctx: int,
+                        keep_lo: int, keep_hi: int, iters: int) -> torch.Tensor:
+    """Plain version of O's polish on the FFT route (``gl_polish_fft_kernel``):
+    ``iters`` projections of the grid (``mag`` and ``phase`` ``(B, Tp, F)``,
+    the last ``overlap - 1`` frames zero magnitude; see
+    :func:`gl_project_reference`) in the kernel's schedule.  Each: the
+    synthesis of every grid frame as the decode's FFT route computes it
+    (:func:`_synthesize_fft` with the gain ``overlap``: ``mag (cos, sin)``,
+    the frames paired ``(r, r + overlap)`` from ``-(overlap - 1)`` on, the
+    overlap-add in class order), cut at ``Tp hop`` samples; then
+    ``frames_rfft_reference`` of the re-framed rows ``ctx .. Tx - 1`` (pairs
+    ``(2j, 2j + 1)`` counted from ``ctx``) and ``atan2``, written to those
+    rows outside ``[keep_lo, keep_hi)``; every other row as it was, bit for
+    bit.  Returns the new phases."""
+    ov = n_fft // hop
+    Tx = mag.shape[1] - (ov - 1)
+    rows = torch.arange(ctx, Tx, device=mag.device)
+    upd = ((rows < keep_lo) | (rows >= keep_hi))[None, :, None]
+    w = window.to(device=mag.device, dtype=torch.float32)
+    ph = phase.clone()
+    for _ in range(int(iters)):
+        y = _synthesize_fft(mag * torch.cos(ph), mag * torch.sin(ph), inv_window, float(ov), n_fft, hop,
+                            mag.shape[1])
+        re, im = frames_rfft_reference(y.unfold(-1, n_fft, hop)[:, ctx:Tx], w)
+        ph[:, ctx:Tx] = torch.where(upd, torch.atan2(im, re), ph[:, ctx:Tx])
+    return ph
+
+
+def _launch_polish(mag, phase, window, proj_syn, n_fft, hop, ctx, keep_lo, keep_hi, iters, plan) -> None:
+    """O's polish, one launch of ``gl_polish_fft_kernel`` (``plan``:
+    :func:`_polish_plan`'s), ``phase`` updated in place."""
+    teams, resident = plan
+    _, wsyn, tw = proj_syn
+    if wsyn is None or tw is None:
+        raise ValueError("the polish takes the synthesis window and the twiddle table (_decode_operands)")
+    B, Tp, F = mag.shape
+    ov = n_fft // hop
+    win = window.to(device=mag.device, dtype=torch.float32).contiguous()
+    lib = _build.load_library()
+    with torch.cuda.device(mag.device):
+        code = lib.att_gl_polish(
+            mag.data_ptr(), phase.data_ptr(), win.data_ptr(), wsyn.data_ptr(), tw.data_ptr(), B, Tp,
+            Tp - (ov - 1), ctx, keep_lo, keep_hi, F, hop, ov, iters, teams, int(resident), _stream(),
+        )
+    _build.check(code, "gl_polish")
+    launches["gl_polish"] += 1
+    routes["gl_polish:fft"] += 1
+
+
 def _launch_project_analysis(y, phase, WC, WS, n_fft, hop, Tx, ctx, keep_lo, keep_hi) -> None:
     """O's projection analysis, ``phase`` updated in place."""
-    _require("project", n_fft, hop, Tx - ctx)
+    if not _two_launch_covers(n_fft, hop, Tx - ctx):
+        raise NotImplementedError(
+            "the projection analysis does not cover n_fft=%d hop=%d with %d polished frames: it needs P's "
+            "limits and at most 40 frames whose samples fit shared memory (ROADMAP Queue 2, K10-K17)"
+            % (n_fft, hop, Tx - ctx))
     B, Tp, F = phase.shape
     lib = _build.load_library()
     with torch.cuda.device(y.device):
@@ -943,6 +1053,29 @@ def gl_project(mag, phase, proj_syn, inv_window, window, WC, WS, n_fft: int, hop
     Tx = mag.shape[1] - (n_fft // hop - 1)
     y = _launch_decode(mag, phase, proj_syn, n_fft, hop, rows=PROJECT_SYN_ROWS, name="gl_project_synthesis")
     _launch_project_analysis(y, phase, WC, WS, n_fft, hop, Tx, ctx, keep_lo, keep_hi)
+    return phase
+
+
+def gl_polish(mag, phase, proj_syn, inv_window, window, WC, WS, n_fft: int, hop: int, ctx: int,
+              keep_lo: int, keep_hi: int, iters: int) -> torch.Tensor:
+    """``iters`` projections of O's grid, the polish of one chunk.  Where
+    :func:`_polish_plan` takes the grid: on a CUDA tensor one launch of
+    ``gl_polish_fft_kernel`` (``proj_syn``: :func:`_decode_operands` with the
+    gain ``overlap``), which updates ``phase`` in place and returns it, on a
+    CPU tensor :func:`gl_polish_reference`.  Elsewhere ``iters`` calls of
+    :func:`gl_project` (two launches each on a CUDA tensor, with the analysis
+    bases ``WC``, ``WS``)."""
+    iters = int(iters)
+    plan = _polish_plan(n_fft, hop, mag.shape[1])
+    if plan is None:
+        for _ in range(iters):
+            phase = gl_project(mag, phase, proj_syn, inv_window, window, WC, WS, n_fft, hop, ctx, keep_lo,
+                               keep_hi)
+        return phase
+    if not mag.is_cuda:
+        return gl_polish_reference(mag, phase, inv_window, window, n_fft, hop, ctx, keep_lo, keep_hi, iters)
+    if iters > 0:
+        _launch_polish(mag, phase, window, proj_syn, n_fft, hop, ctx, keep_lo, keep_hi, iters, plan)
     return phase
 
 
@@ -1006,7 +1139,8 @@ class _Session:
         """Raise unless every kernel a session launches covers the shape,
         before the first one runs."""
         for kind in kinds:
-            _require(kind, self.n_fft, self.hop, self.T_c + int(self.rt.lookahead_frames))
+            _require(kind, self.n_fft, self.hop, self.T_c + int(self.rt.lookahead_frames),
+                     int(self.rt.gl_context))
 
     def pghi_gl_decode(self, mag: torch.Tensor, angles: torch.Tensor, syn, T: int) -> torch.Tensor:
         """O after the analysis: magnitudes ``(B, n_chunks T_c, F)`` and the
@@ -1015,29 +1149,32 @@ class _Session:
         the projection are the kernels on a CUDA tensor and their plain
         versions on a CPU one."""
         rt, n_fft, hop = self.rt, self.n_fft, self.hop
+        iters = int(rt.gl_iterations)
+        Tp = int(rt.gl_context) + self.T_c + int(rt.lookahead_frames) + n_fft // hop - 1
         proj_syn = WC = WS = None
         if mag.is_cuda:
             proj_syn = _decode_operands(rt.inv_window, float(n_fft // hop), n_fft, hop)
-            WC, WS = self.analysis()
+            if _polish_plan(n_fft, hop, Tp) is None:
+                WC, WS = self.analysis()
         cm, cp = _pghi_gl_commits(
             mag, angles, rt, self.T_c,
-            lambda mx, ph, ctx, lo, hi: gl_project(mx, ph, proj_syn, rt.inv_window, rt.window, WC, WS,
-                                                   n_fft, hop, ctx, lo, hi))
+            lambda mx, ph, ctx, lo, hi: gl_polish(mx, ph, proj_syn, rt.inv_window, rt.window, WC, WS,
+                                                  n_fft, hop, ctx, lo, hi, iters))
         if mag.is_cuda:
             return _launch_decode(cm, cp, syn, n_fft, hop)[:, : T * hop]
         return session_decode_reference(cm[:, :T], cp, rt.inv_window, self.gain, n_fft, hop)
 
 
-def _pghi_gl_commits(mag, angles, rt, T_c: int, project):
+def _pghi_gl_commits(mag, angles, rt, T_c: int, polish):
     """O's host loop over the chunks, each over the whole batch: the seeded
-    recurrence (:func:`rt_pghi_phases`), ``gl_iterations`` calls of
-    ``project(grid_mag, grid_phase, ctx, keep_lo, keep_hi)`` (a projection
-    that returns the new grid phases), the commit and the carries (module
-    notes).  Returns the committed magnitudes and phases ``(B, n_chunks T_c,
-    F)``."""
+    recurrence (:func:`rt_pghi_phases`), one call of ``polish(grid_mag,
+    grid_phase, ctx, keep_lo, keep_hi)`` (the ``gl_iterations`` projections
+    of the chunk, which return the new grid phases), the commit and the
+    carries (module notes).  Returns the committed magnitudes and phases ``(B,
+    n_chunks T_c, F)``."""
     n_fft, hop = rt.n_fft, rt.hop_length
     B, F = mag.shape[0], mag.shape[-1]
-    ctx, la, iters = int(rt.gl_context), int(rt.lookahead_frames), int(rt.gl_iterations)
+    ctx, la = int(rt.gl_context), int(rt.lookahead_frames)
     Tt = T_c + la
     keep_lo, keep_hi = rt.gl_frozen(T_c)
     args = (rt.gamma, n_fft, hop, float(rt.tolerance), Tt)
@@ -1050,9 +1187,7 @@ def _pghi_gl_commits(mag, angles, rt, T_c: int, project):
         a = angles[:, c * Tt: (c + 1) * Tt].contiguous()
         ph0 = rt_pghi_phases(m.contiguous(), a, *args, prev_mag=mag_buf, prev_phase=ph_buf)
         mag_x = torch.cat([gl_mag, m, tail], dim=1).contiguous()
-        ph = torch.cat([gl_ph, ph0, tail], dim=1).contiguous()
-        for _ in range(iters):
-            ph = project(mag_x, ph, ctx, keep_lo, keep_hi)
+        ph = polish(mag_x, torch.cat([gl_ph, ph0, tail], dim=1).contiguous(), ctx, keep_lo, keep_hi)
         cm, cp = m[:, :T_c], ph[:, ctx: ctx + T_c]
         c_mag.append(cm)
         c_ph.append(cp)

@@ -18,7 +18,8 @@ each as one whole-session kernel, then (phase 4g) the RT-PGHI roundtrip and
 decode and the [.., Magnitude] RT-PGHI roundtrip of that chain in pghi mode
 and of OverlapAdd + RealtimeDGT, the complex decode, and the same routes in
 ``pghi_gl`` (the RT-PGHI seed and 16 pinned-context Griffin-Lim projections a
-chunk; lookahead 4 too), all held against the generic chunk scan, and (phase
+chunk, one polish launch; lookahead 4 too; a grid the polish does not take on
+two launches a projection), all held against the generic chunk scan, and (phase
 4h) the dispatch outside the JAX package's gates: shapes no kernel covers
 (``STFT(1024, 300)``, ``RealtimeSTFT(1000, 250)``) on the eager route against
 the same calls on the CPU, and shapes the port's kernels take (1200/300) on
@@ -30,7 +31,11 @@ projection I) and the streaming decodes (P, S, O's projection synthesis)
 have two routes, picked by n_fft alone: a shared-memory FFT
 (``csrc/fft_smem.cuh``: ``frames_rfft`` for the analyses, ``frames_irfft``
 for the syntheses of C, D, I, J, L, M, K, P, S and O) at a power of two
-from 64 to 4096, the window-folded products elsewhere.  Phases 3 and 4f
+from 64 to 4096, the window-folded products elsewhere; so do the log-mel
+fit's statistics (B: F's FFT instance under the taps' own window, the
+factored front end elsewhere; the forward A stays factored), and O's polish
+(``gl_polish_fft_kernel``: every projection of a chunk in one launch, where
+its block holds the grid; two launches a projection elsewhere).  Phases 3 and 4f
 hold the FFT route against its plain version (within 1e-5 for R, E and F;
 1e-6 for C, D, I, J, L, M, K's synthesis, G, H, P, S and O's synthesis,
 which come out bit-identical) and against a float64 oracle at 1024, 512,
@@ -564,9 +569,9 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         log(f"  {label}: {ms:.1f} ms, launches {got}" + (f", encode routes {fronts}" if fronts else ""))
         require(got == expect and others() == 0, f"{label}: expected the launches {expect}, got {got}")
         for k in ("session_encode", "session_magnitude", "session_roundtrip", "session_random_roundtrip",
-                  "session_random_decode", "session_complex_decode", "gl_project_synthesis"):
-            require(ss.routes[f"{k}:{front}"] == ss.launches[k],
-                    f"{label}: {k} launched {ss.launches[k]} times, {ss.routes[k + ':' + front]} on the {front} route")
+                  "session_random_decode", "session_complex_decode", "gl_project_synthesis", "gl_polish"):
+            on = ss.routes.get(f"{k}:{front}", 0)
+            require(on == ss.launches[k], f"{label}: {k} launched {ss.launches[k]} times, {on} on the {front} route")
         for k, v in got.items():
             counts[k] += v if main else 0
         for k, v in fronts.items():
@@ -1081,19 +1086,23 @@ def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
     (``gl_iterations`` 16, ``gl_context`` 3, the defaults):
 
     * ``scan_roundtrip(pghi_gl)`` (the magnitude encode, per chunk one seeded
-      recurrence and 16 projections of two launches, P's synthesis),
+      recurrence and one polish launch of 16 projections, P's synthesis),
       ``scan_invert(pghi_gl)`` of the offline magnitudes and the 3-chain
       ``[.., Magnitude]`` roundtrip, each with every launch counter at 0
       before and read after, held against the generic chunk scan under a
       generator in the same state by spectral convergence within ``1.1 s +
       1e-3`` (``bench.py:566-592``, ``:640-675``); the hann roundtrip again
       at lookahead 4, with the ``pghi`` figure of the same sessions beside;
+      the hann roundtrip (lookahead 0 and 4) and decode at B = 1 and 8 too;
+      a grid the polish does not take (4096/1024, ``gl_context`` 1, chunks
+      of 40 frames) on two launches a projection;
     * each new kernel against its plain version on identical inputs at the
       main shape, 512/128 and 2048/512, lookahead 0 and 4: the seeded
       recurrence (phases bit-identical, or ``|X| (cos, sin)`` within 1e-4 of
       the largest), the projection (pinned and frozen rows included, within
       1e-4 of the largest ``|X| (cos, sin)``; its synthesis alone within 2e-5
-      relative) and the whole session against the plain session (spectral
+      relative), the polish of 16 projections (bit-identical) and the whole
+      session against the plain session (spectral
       convergence within ``1.1 s + 1e-3``, finite);
     * the hann roundtrip's and decode's times beside the generic scan's at B
       = 1, 8 and 64.
@@ -1118,8 +1127,8 @@ def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
     iters = h_chain[1].gl_iterations
 
     def expect(encode):
-        d = {"rt_pghi_seeded": n_chunks, "gl_project_synthesis": n_chunks * iters,
-             "gl_project_analysis": n_chunks * iters, "session_random_decode": 1}
+        # one polish launch a chunk (all 16 projections), no two-launch projection
+        d = {"rt_pghi_seeded": n_chunks, "gl_polish": n_chunks, "session_random_decode": 1}
         return dict(d, session_magnitude=1) if encode else d
 
     win = torch.hann_window(N_FFT, device=dev)
@@ -1192,6 +1201,53 @@ def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
         lambda g: streaming.scan_roundtrip(la_chain, sx, CH, "pghi_gl", generator=g),
         lambda g: streaming.scan_roundtrip(la_chain, sx, CH, "pghi_gl", generator=g, backend="generic"),
         expect(True), sc_roundtrip(sx, extra=4), 131)
+    # B = 1 and 8 too: the hann roundtrip at lookahead 0 and 4 and the decode
+    dm = rt_stream["dec_mags"]["hann"]
+    for b in sorted({1, 8} - {SB}):
+        xb, mb = sx[:b].contiguous(), dm[:b].contiguous()
+        quality[f"sc_hann_roundtrip_B{b}"] = sc_pair(
+            f"hann pghi_gl roundtrip at B={b}",
+            lambda g: streaming.scan_roundtrip(h_chain, xb, CH, "pghi_gl", generator=g),
+            lambda g: streaming.scan_roundtrip(h_chain, xb, CH, "pghi_gl", generator=g, backend="generic"),
+            expect(True), sc_roundtrip(xb), 160 + b, key=("hann pghi_gl roundtrip", b))
+        quality[f"sc_hann_decode_B{b}"] = sc_pair(
+            f"hann pghi_gl decode at B={b}",
+            lambda g: streaming.scan_invert(h_chain, mb, T_C, "pghi_gl", generator=g),
+            lambda g: streaming.scan_invert(h_chain, mb, T_C, "pghi_gl", generator=g, backend="generic"),
+            expect(False), rt_stream["sc_dec_of"](mb, h_chain[1].window), 170 + b, key=("hann pghi_gl decode", b))
+        quality[f"sc_hann_roundtrip_la4_B{b}"] = sc_pair(
+            f"hann pghi_gl roundtrip, lookahead 4, at B={b}",
+            lambda g: streaming.scan_roundtrip(la_chain, xb, CH, "pghi_gl", generator=g),
+            lambda g: streaming.scan_roundtrip(la_chain, xb, CH, "pghi_gl", generator=g, backend="generic"),
+            expect(True), sc_roundtrip(xb, extra=4), 180 + b)
+    # a grid that the polish's block cannot hold (4096/1024, gl_context 1,
+    # chunks of 40 frames: 44 grid frames, 271 KB even with the grid in
+    # device memory) keeps the two-launch projections, here on the decode's
+    # FFT route; these launches are the Osyn and Oana rows' counts
+    fb_n, fb_hop, fb_ctx, fb_tc = 4096, 1024, 1, 40
+    fb_chain = T.OverlapAdd(fb_n, fb_hop) + T.RealtimeSTFT(n_fft=fb_n, hop_length=fb_hop, inversion_mode="pghi_gl",
+                                                         gl_context=fb_ctx)
+    fb_chunk, fb_chunks = fb_tc * fb_hop, 4
+    fb_x = sx[:2, : fb_chunks * fb_chunk].contiguous()
+    fb_tp = fb_ctx + fb_tc + fb_n // fb_hop - 1
+    require(ss._polish_plan(fb_n, fb_hop, fb_tp) is None and ss.kernel_covers("project", fb_n, fb_hop, fb_tc, fb_ctx),
+            "4096/1024 with gl_context 1: the polish must refuse the grid and the two-launch route take it")
+    fb_expect = {"session_magnitude": 1, "rt_pghi_seeded": fb_chunks, "gl_project_synthesis": fb_chunks * iters,
+                 "gl_project_analysis": fb_chunks * iters, "session_random_decode": 1}
+    fb_sc = sc_roundtrip(fb_x, n_fft=fb_n, hop=fb_hop)
+    y1 = route(f"two-launch polish: {fb_n}/{fb_hop} gl_context {fb_ctx} pghi_gl roundtrip, 2 x {fb_x.shape[-1]}",
+               lambda: streaming.scan_roundtrip(fb_chain, fb_x, fb_chunk, "pghi_gl", generator=sgen(190)),
+               fb_expect, main=False)
+    y2 = generic("two-launch polish generic", lambda: streaming.scan_roundtrip(
+        fb_chain, fb_x, fb_chunk, "pghi_gl", generator=sgen(190), backend="generic"))
+    s1, s2 = fb_sc(y1), fb_sc(y2)
+    log(f"    vs the generic scan (same seed): rel {rel_err(y1, y2):.3e}; spectral convergence {s1:.5f} / {s2:.5f} "
+        f"(must be <= {1.1 * s2 + 1e-3:.5f})")
+    require(y1.shape == y2.shape and torch.isfinite(y1).all().item() and s1 <= 1.1 * s2 + 1e-3,
+            "the two-launch polish converges worse than the generic scan")
+    for k in ("gl_project_synthesis", "gl_project_synthesis:fft", "gl_project_analysis"):
+        counts[k] += fb_chunks * iters
+    del y1, y2
     pq = rt_stream["quality"]
     log("  pghi_gl against pghi on the same sessions (kernel routes; spectral convergence): "
         + ", ".join(f"{k} pghi_gl {quality[k][0]:.5f} / pghi {pq[k][0]:.5f}"
@@ -1236,6 +1292,22 @@ def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
         p_p = ss.gl_project_reference(gm, gp, rt.inv_window, rt.window, n_fft, hop, ctx, lo, hi)
         e_syn, e_pr = rel_err(y_k, y_p), (unit(gm, p_k) - unit(gm, p_p)).abs().max().item()
         kept = torch.equal(p_k[:, :ctx], gp[:, :ctx]) and torch.equal(p_k[:, lo:hi], gp[:, lo:hi])
+        # the polish of that grid, gl_iterations projections in one launch,
+        # against its plain version (bit-identical), and beside as many
+        # two-launch projections (reported: chained projections carry the
+        # 1e-7 rounding differences of the two analyses, the FFT's and the
+        # product's, onwards; the session's spectral convergence is the
+        # quality bound)
+        iters_o = rt.gl_iterations
+        q_k = ss.gl_polish(gm, gp.clone(), syn, rt.inv_window, rt.window, None, None, n_fft, hop, ctx, lo, hi, iters_o)
+        q_p = ss.gl_polish_reference(gm, gp, rt.inv_window, rt.window, n_fft, hop, ctx, lo, hi, iters_o)
+        q_two = gp.clone()
+        for _ in range(iters_o):
+            q_two = ss.gl_project(gm, q_two, syn, rt.inv_window, rt.window, WC, WS, n_fft, hop, ctx, lo, hi)
+        e_pol = (unit(gm, q_k) - unit(gm, q_p)).abs().max().item()
+        e_two = (unit(gm, q_k) - unit(gm, q_two)).abs().max().item()
+        same_pol = torch.equal(q_k, q_p)
+        kept = kept and torch.equal(q_k[:, :ctx], gp[:, :ctx]) and torch.equal(q_k[:, lo:hi], gp[:, lo:hi])
         # the whole session against the plain session on the same magnitudes and angles
         n_ch = mag.shape[1] // T_c
         ang = ss.session_angles((B,), n_ch, Tt, Fb, dev, g)
@@ -1246,14 +1318,18 @@ def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
         s_k, s_p = sc(y_s), sc(y_sp)
         log(f"  kernels vs plain, {label}: seeded recurrence |X| (cos, sin)(phase) off by {e_rt:.3e} (tol "
             f"1e-04; {100 * differ:.4f}% of bins differ); projection synthesis rel {e_syn:.3e} (tol 2e-05), "
-            f"projection {e_pr:.3e} (tol 1e-04), pinned and frozen rows kept: {kept}; session vs plain session "
+            f"projection {e_pr:.3e} (tol 1e-04), polish of {iters_o} bit-identical to its plain version: {same_pol} "
+            f"({e_pol:.3e}), {iters_o} two-launch projections off it by {e_two:.3e}, pinned and frozen "
+            f"rows kept: {kept}; session vs plain session "
             f"rel {rel_err(y_s, y_sp):.3e}, spectral convergence {s_k:.5f} / {s_p:.5f} (must be <= "
             f"{1.1 * s_p + 1e-3:.5f})")
         for what, out in (("recurrence", ph_k), ("synthesis", y_k), ("projection", p_k), ("session", y_s)):
             require(torch.isfinite(out).all().item(), f"{what} {label}: not finite")
         require(y_s.shape == y_sp.shape and p_k.shape == gp.shape, f"{label}: shapes")
-        require(e_rt <= 1e-4 and e_syn <= 2e-5 and e_pr <= 1e-4 and kept and s_k <= 1.1 * s_p + 1e-3,
+        require(e_rt <= 1e-4 and e_syn <= 2e-5 and e_pr <= 1e-4 and kept and s_k <= 1.1 * s_p + 1e-3
+                and same_pol and torch.isfinite(q_k).all().item(),
                 f"{label}: an O kernel disagrees with its plain version")
+        errs["Opol"] = max(errs.get("Opol", 0.0), e_pol)
         errs["RTs"] = max(errs.get("RTs", 0.0), e_rt)
         errs["Osyn"] = max(errs.get("Osyn", 0.0), abs_err(y_k, y_p))
         errs["Oana"] = max(errs.get("Oana", 0.0), e_pr)
@@ -1469,6 +1545,8 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
             f"(must be <= {1.1 * s_g + 1e-3:.5f})")
         require(y_k.shape == y_g.shape and torch.isfinite(y_k).all().item() and s_k <= 1.1 * s_g + 1e-3,
                 f"1200/300 {mode}: the session converges worse than the generic scan")
+        if mode == "pghi_gl":       # the two-launch polish: O's analysis row counts these
+            counts["gl_project_analysis"] += n_ch * iters
 
     # C and D on the product route: the Griffin-Lim invert of an STFT(768,
     # 192, hann) (n_fft no power of two) on 16 clips, converging like the
@@ -1525,6 +1603,24 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
         f"eager chain rel {e_y:.3e} (tol 1e-04)")
     require(torch.isfinite(y_k).all().item() and e_off <= 1e-5 and e_scl <= 1e-5 and e_y <= 1e-4,
             "DGT(768, 256): the product route differs from the eager chain")
+    # B on the factored route: the fit of the log-mel chain at STFT(768, 192)
+    # (n_fft no power of two; the main path's fit takes the FFT route)
+    b_chain = T.Mono() + T.STFT(n_fft=768, hop_length=192) + T.Magnitude(mode="unipolar", contrast="log1p",
+                                                                        mel=True, n_fft=768)
+    zero()
+    b_fit = att.fuse_fit(b_chain)(audio)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in sp.routes.items() if v}
+    log(f"  STFT(768, 192) log-mel chain, fit on {tuple(audio.shape)}: launches "
+        f"{ {k: v for k, v in sp.launches.items() if v} }, routes {got}")
+    require(got == {"fused_melspec_stats:factored": 1} and launched() == 1,
+            "STFT(768, 192): B must launch once on the factored route")
+    counts["fused_melspec_stats:factored"] += 1
+    e_fit = b_chain.fit(audio)
+    e_off = abs(b_fit[2].norm.offset.item() - e_fit[2].norm.offset.item()) / abs(e_fit[2].norm.scale.item())
+    e_scl = abs(b_fit[2].norm.scale.item() - e_fit[2].norm.scale.item()) / abs(e_fit[2].norm.scale.item())
+    log(f"    fit offset / scale vs chain.fit: {e_off:.3e} / {e_scl:.3e} of the scale (tol 1e-05)")
+    require(e_off <= 1e-5 and e_scl <= 1e-5, "STFT(768, 192): B's factored route differs from chain.fit")
     # J on the product route: that chain's pghi_gl inversion (n_fft 768 is no
     # power of two), converging like the eager loop from the same seed
     dgt = d_fit[1]
@@ -1743,6 +1839,10 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "error" in line.lower():
             log("    " + line.strip())
+    for name, res in _build.kernel_resources().items():
+        if "gl_polish" in name:
+            log(f"    {name}: {res['registers']} registers, spill stores / loads {res['spill_stores']} / "
+                f"{res['spill_loads']} B")
     for tile_t in spectral.TILES:
         require(
             lib.att_melspec_smem_bytes(tile_t, HOP, N_FFT // HOP, N_FFT // 2 + 1)
@@ -1821,6 +1921,12 @@ def main() -> int:
                 require(teams > 0 and lib.att_session_decode_fft_smem_bytes(rows, hop_s, n_fft_s, teams)
                         == ss._decode_fft_smem_bytes(rows, hop_s, n_fft_s, teams),
                         "decode FFT route's shared-memory size: wrapper and source disagree")
+            for tp in (ov_s, 22, 26, 44):
+                for tm in sorted({1, ff.fft_max_teams(n_fft_s)}):
+                    for res in (0, 1):
+                        require(lib.att_gl_polish_smem_bytes(tp, hop_s, n_fft_s, tm, res)
+                                == ss._polish_smem_bytes(tp, hop_s, n_fft_s, tm, bool(res)),
+                                "polish's shared-memory size: wrapper and source disagree")
             if hop_s % 32 == 0:
                 tile_c, teams_c = glstep._step_fft_plan(n_fft_s, hop_s)
                 for tm in sorted({1, teams_c}):
@@ -1847,7 +1953,9 @@ def main() -> int:
         f"{spectral._repr_plan(N_FFT, HOP, None, False, 'if', True)} / "
         f"{spectral._repr_plan(N_FFT, HOP, None, True, 'if', False)}, C / D / I {glstep._step_fft_plan(N_FFT, HOP)}, "
         f"P / S {ss._decode_plan(N_FFT, HOP)}, O's synthesis {ss._decode_plan(N_FFT, HOP, ss.PROJECT_SYN_ROWS)} "
-        f"as (rows or tile, FFTs side by side); J {glstep._fullk_plan(N_FFT, HOP)} as (route, chunks, frames, FFTs))")
+        f"as (rows or tile, FFTs side by side); J {glstep._fullk_plan(N_FFT, HOP)} as (route, chunks, frames, FFTs); "
+        f"O's polish at 22 / 26 grid frames {ss._polish_plan(N_FFT, HOP, 22)} / {ss._polish_plan(N_FFT, HOP, 26)} "
+        f"as (FFTs side by side, grid in shared memory))")
 
     # ------------------------------------------------ 3. kernels vs plain
     log("[3] each kernel against its plain PyTorch version on the card")
@@ -1886,10 +1994,31 @@ def main() -> int:
         log(f"  {A} {name}: bf16 store bit-equal to rounding, int16 input bit-identical")
         errs[A] = max(errs.get(A, 0.0), abs_err(y_k, y_p))
 
-    def check_stats(name, x, n_fft, hop, wname):
-        (_, Bk), taps, window = front_end(wname, n_fft)
+    def check_stats(name, x, n_fft, hop, wname, taps=None):
+        """B or F against its plain version.  B (taps) takes the FFT route
+        wherever n_fft is a power of two from 64 to 4096 (F's instance under
+        the taps' own window), the factored front end elsewhere: on the FFT
+        route the statistics are bit-identical to the plain version's where
+        the order of the sums does not enter (the extrema: one value each),
+        and the sums differ by the order of the float64 reduction of the
+        blocks' float32 partials only."""
+        (_, Bk), taps_w, window = front_end(wname, n_fft)
+        taps = taps_w if taps is None else taps
+        spectral.reset_launches()
         s_k = spectral.fused_melspec_stats(x, n_fft, hop, "log1p", taps=taps, window=window)
         s_p = spectral.fused_melspec_stats_reference(x, n_fft, hop, "log1p", taps=taps, window=window)
+        if taps is not None:
+            fft = spectral._kernel_plan(n_fft, hop, taps, stats=True)[1] > 0
+            route = "fft" if fft else "factored"
+            require(spectral.routes[f"fused_melspec_stats:{route}"] == 1 and fft == ff.fft_covers(n_fft),
+                    f"B {name}: not on the {route} route")
+            if fft:
+                same = s_k["min"].item() == s_p["min"].item() and s_k["max"].item() == s_p["max"].item()
+                log(f"  B {name} (FFT route): extrema bit-identical to the plain version: {same}")
+                require(same, f"B {name}: the FFT route's extrema differ from the plain version's")
+                Bk = "B"
+            else:
+                Bk = "B_factored"
         e_sum = abs(s_k["sum"].item() - s_p["sum"].item()) / abs(s_p["sum"].item())
         e_sq = abs(s_k["sumsq"].item() - s_p["sumsq"].item()) / abs(s_p["sumsq"].item())
         e_min = abs(s_k["min"].item() - s_p["min"].item())
@@ -1906,6 +2035,46 @@ def main() -> int:
         require(e_min <= tol_ext and e_max <= tol_ext, f"{Bk} {name}: extrema disagree with plain")
         errs[Bk] = max(errs.get(Bk, 0.0), e_min, e_max)
 
+    def check_polish(n_fft, hop, la, seed):
+        """O's polish (gl_polish_fft_kernel, one launch of 4 projections, then
+        one of 16) against gl_polish_reference on 3 sessions of a random grid
+        (phases up to 50 rad): bit-identical (it repeats the kernel's
+        float32 operations in order, and sincosf / atan2f are torch's sin,
+        cos and atan2 on the card); the pinned, frozen and zero rows
+        untouched."""
+        rt = T.RealtimeSTFT(n_fft=n_fft, hop_length=hop, inversion_mode="pghi_gl", lookahead_frames=la)
+        ov, Fb, T_c = n_fft // hop, n_fft // 2 + 1, max(4, 16384 // n_fft)
+        ctx = rt.gl_context
+        tp = ctx + T_c + la + ov - 1
+        g = torch.Generator(device=dev).manual_seed(args.seed + seed)
+        gm = torch.rand((3, tp, Fb), generator=g, device=dev)
+        gm[:, -(ov - 1):] = 0.0
+        gp = (2 * torch.rand((3, tp, Fb), generator=g, device=dev) - 1) * 50.0
+        lo, hi = rt.gl_frozen(T_c)
+        syn = ss._decode_operands(rt.inv_window, float(ov), n_fft, hop)
+        plan = ss._polish_plan(n_fft, hop, tp)
+        require(plan is not None, f"the polish must take {n_fft}/{hop} at {tp} grid frames")
+        worst = 0.0
+        for iters in (4, 16):
+            ss.reset_launches()
+            p_k = ss.gl_polish(gm, gp.clone(), syn, rt.inv_window, rt.window, None, None, n_fft, hop, ctx, lo, hi,
+                               iters)
+            p_p = ss.gl_polish_reference(gm, gp, rt.inv_window, rt.window, n_fft, hop, ctx, lo, hi, iters)
+            torch.cuda.synchronize()
+            same = torch.equal(p_k, p_p)
+            kept = (torch.equal(p_k[:, :ctx], gp[:, :ctx]) and torch.equal(p_k[:, lo:hi], gp[:, lo:hi])
+                    and torch.equal(p_k[:, -(ov - 1):], gp[:, -(ov - 1):]))
+            e = (unit_spec(gm, p_k) - unit_spec(gm, p_p)).abs().max().item()
+            worst = max(worst, e)
+            require(ss.launches["gl_polish"] == 1 and ss.routes["gl_polish:fft"] == 1
+                    and sum(ss.launches.values()) == 1, f"polish {n_fft}/{hop}: expected one polish launch")
+            require(same and kept and torch.isfinite(p_k).all().item(),
+                    f"polish {n_fft}/{hop} lookahead {la}, {iters} projections: differs from its plain version")
+        log(f"  O polish {n_fft}/{hop} lookahead {la} ({tp} grid frames, plan {plan}): 4 and 16 projections "
+            f"bit-identical to the plain version, |X| (cos, sin) off by {worst:.3e}; pinned, frozen and zero rows "
+            f"untouched")
+        errs["Opol"] = max(errs.get("Opol", 0.0), worst)
+
     mag_t = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=N_FFT)
     stft_t = T.STFT(n_fft=N_FFT, hop_length=HOP)
     taps_main = stft_t._window_taps
@@ -1918,6 +2087,17 @@ def main() -> int:
     mag_r = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=512)
     check_forward("ragged 512/128 blackman", rag, 512, 128, "blackman", mag_r.mel_bank, -0.2, 0.7)
     check_stats("ragged 512/128 blackman", rag, 512, 128, "blackman")
+    # B on the FFT route at every power of two it takes (hop n_fft / 4, at
+    # least the kernels' 32) under hann and blackman taps, and on the
+    # factored route at 768/192 (n_fft no power of two)
+    for n_fft in (64, 128, 256, 512, 1024, 2048, 4096):
+        for wname, taps_b in (("hann", (0.5, -0.25)), ("blackman", (0.42, -0.25, 0.04))):
+            check_stats(f"{n_fft}/{max(32, n_fft // 4)} {wname}", small, n_fft, max(32, n_fft // 4), wname, taps_b)
+    check_stats("768/192 hann", small, 768, 192, "hann")
+    # O's polish at every power of two it takes, lookahead 0 and 4
+    for n_fft in (64, 128, 256, 512, 1024, 2048, 4096):
+        for la in (0, 4):
+            check_polish(n_fft, n_fft // 4, la, 300 + n_fft + la)
     spec_main = stft_t.forward(mono)
     gl_mag = spec_main.abs()
     del spec_main
@@ -2434,6 +2614,12 @@ def main() -> int:
                 f"{k}: the main path's launches must all take the FFT route")
         counts[k + ":fft"] = glstep.routes[k + ":fft"]
         counts[k + ":product"] = 0      # the product route's launches: phase 4h
+    log(f"  A and B by route: { {k: v for k, v in spectral.routes.items() if v} }")
+    require(spectral.routes["fused_melspec_stats:fft"] == counts["fused_melspec_stats"]
+            and spectral.routes["fused_melspec:factored"] == counts["fused_melspec"],
+            "the main path's fit (B) must take the FFT route and its forward (A) the factored one")
+    counts["fused_melspec_stats:fft"] = spectral.routes["fused_melspec_stats:fft"]
+    counts["fused_melspec_stats:factored"] = 0      # the factored route's launches: phase 4h
     n_frames = 1 + L // HOP
     require(tuple(y.shape) == (B, n_frames, N_FFT // 2 + 1), f"log-mel shape {tuple(y.shape)}")
     require(torch.isfinite(y).all().item(), "log-mel not finite")
@@ -2516,7 +2702,7 @@ def main() -> int:
     require(pghi_kernel.routes["pghi_synthesize:fft"] == dgt_counts["pghi_synthesize"]
             and pghi_kernel.routes["pghi_synthesize:product"] == 0,
             "pghi_synthesize: the DGT path's launches must all take the FFT route")
-    counts.update(spectral.routes)
+    counts.update({k: v for k, v in spectral.routes.items() if "_fullk:" in k})   # A and B's: phase 4
     counts.update(pghi_kernel.routes)
     counts.update({k: dgt_counts[k] for k in ("fused_melspec_fullk", "fused_melspec_stats_fullk",
                                               "pghi_phases", "pghi_synthesize")})
@@ -2829,6 +3015,11 @@ def main() -> int:
     g_tile = glstep._pick_tile(Tg, chain_g, ov_g, hop_g)
     gl_flops_g_chain = gl_flops_g * (g_tile + 2 * (ov_g - 1) * (chain_g - 1)) / g_tile
 
+    def lib_stats_g():
+        v = torch.log1p(torch.stft(mono, n_fft_g, hop_g, window=w_g, center=True, pad_mode="reflect",
+                                   return_complex=True).abs())
+        return v.sum(), (v * v).sum(), v.min(), v.max()
+
     def lib_gl_g(iters):
         a = torch.complex(g_st[0], g_st[1])
         tp = torch.complex(g_st[2], g_st[3])
@@ -2849,14 +3040,25 @@ def main() -> int:
              library=lib_forward,
              bound=bound_of(4.0 * B * L + 4.0 * B * Tn * F + 4.0 * F * F, fwd_flops),
              ceiling=ceiling_of(chunk_flops + combine_flops + 3.0 * B * Tn * F + 2.0 * B * Tn * nnz)),
-        dict(key="B", name="fused_melspec_stats", source="acids_transforms_tpu_torch/csrc/spectral.cu",
+        dict(key="B", name="fused_melspec_stats", front_end="fft",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:903",
-             launches=counts["fused_melspec_stats"],
+             launches=counts["fused_melspec_stats:fft"],
              run=lambda: spectral.fused_melspec_stats(mono, N_FFT, HOP, "log1p", taps=taps_main),
              plain=lambda: spectral.fused_melspec_stats_reference(mono, N_FFT, HOP, "log1p", taps=taps_main),
              library=lib_stats,
              bound=bound_of(4.0 * B * L, stats_flops),
-             ceiling=ceiling_of(chunk_flops + combine_flops + 8.0 * B * Tn * F)),
+             ceiling=ceiling_of(fft_design_flops(N_FFT, B * Tn) + 9.0 * B * Tn * F)),
+        dict(key="B_factored", name="fused_melspec_stats_factored", front_end="factored",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:903",
+             launches=counts["fused_melspec_stats:factored"],
+             run=lambda: spectral.fused_melspec_stats(mono, n_fft_g, hop_g, "log1p", taps=taps_g),
+             plain=lambda: spectral.fused_melspec_stats_reference(mono, n_fft_g, hop_g, "log1p", taps=taps_g),
+             library=lib_stats_g,
+             bound=bound_of(4.0 * B * L, fft_g + B * Tg * (n_fft_g + 9.0 * Fg)),
+             ceiling=ceiling_of(4.0 * B * (Tg + ov_g - 1) * hop_g * Fg + 8.0 * el_g * ov_g
+                                + 4.0 * el_g * (2 * len(taps_g) - 1) + 8.0 * el_g)),
         dict(key="C", name="gl_momentum_step", front_end="fft",
              source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:294",
@@ -3271,16 +3473,9 @@ def main() -> int:
     s_fr = float(SB * n_sf)
     s_fft = 2.5 * N_FFT * math.log2(N_FFT) * s_fr
     s_in, s_out, s_spec = 4.0 * SB * STREAM_LEN, 4.0 * SB * n_sf * HOP, 8.0 * s_fr * F
-    kn, kp, n_ct = ss._k_analysis(N_FFT), ss._k_padded(F), -(-F // 128)
     r_rt, r_dec = ss._roundtrip_plan(N_FFT, HOP)[0], ss._decode_plan(N_FFT, HOP)[0]
     t_rt, t_dec = -(-n_sf // r_rt), -(-n_sf // r_dec)
     s_rt_ops = ss._Session(stream["chain"], STREAM_CHUNK // HOP).roundtrip_operands()
-
-    def ana_flops(n_rows):
-        return 4.0 * n_rows * kn * 128 * n_ct
-
-    def syn_flops(tiles, rows):
-        return 2.0 * SB * tiles * 8 * -(-rows // 8) * ov * kp * HOP
 
     rt_design = 2.0 * fft_design_flops(N_FFT, SB * t_rt * (r_rt + 2 * ov)) + 3.0 * N_FFT * s_fr
     rt_need = 2 * s_fft + 3.0 * N_FFT * s_fr
@@ -3454,7 +3649,11 @@ def main() -> int:
     ]
     # ---- O (phase 4g's pghi_gl shape: one chunk's grid of gl_context 3 +
     # 16 frames, 64 sessions; the port pads it with 3 zero frames, which the
-    # bounds do not count).  The projection's synthesis is P's kernel in
+    # bounds do not count).  The polish (Opol) runs every projection of it in
+    # one launch.  The two-launch projection runs where the polish does not
+    # take the grid, and its rows are timed there (4096/1024 with
+    # gl_context 1 for the synthesis's FFT route, 1200/300 for its product
+    # route and the analysis).  The projection's synthesis is P's kernel in
     # blocks of 8 chunks; what the function needs of it: the grid's
     # magnitudes and phases read, the overlap-add signal from the first
     # polished frame on written ((Tp - ctx) hop samples: the analysis reads
@@ -3470,7 +3669,6 @@ def main() -> int:
     g_tp = gm.shape[1]
     g_tx = g_tp - (ov - 1)
     g_y = gl_stream["y"]
-    g_scratch = gp.clone()
     g_win_syn = g_rt.inv_window / ov
 
     def lib_proj_synth():
@@ -3483,17 +3681,10 @@ def main() -> int:
         fr = g_y.unfold(-1, N_FFT, HOP)[:, g_ctx:g_tx] * g_rt.window
         return torch.angle(torch.fft.rfft(fr, n=N_FFT))
 
-    def plain_proj_analysis():
-        fr = g_y.unfold(-1, N_FFT, HOP)[:, g_ctx:g_tx]
-        return torch.atan2(torch.matmul(fr, g_ws[:N_FFT]), torch.matmul(fr, g_wc[:N_FFT]))
-
     g_fr = float(SB * g_tx)
     g_rows = g_tx - g_ctx
     g_upd = g_rows - (g_hi - g_lo)          # rows the analysis computes and writes
     g_el = float(SB * g_upd * F)
-    g_samples = 4.0 * SB * (g_tp - g_ctx) * HOP
-    g_rows_syn = ss._decode_plan(N_FFT, HOP, ss.PROJECT_SYN_ROWS)[0]
-    g_tiles = -(-g_tp // g_rows_syn)
     # O's synthesis on the product route: a grid of 3 pinned + 8 + 3 zero
     # frames at 1200/300 (phase 4h's sessions), random magnitudes and phases
     gq_tp = g_ctx + 8 + ov_q - 1
@@ -3509,6 +3700,86 @@ def main() -> int:
         y = torch.nn.functional.fold(fr.transpose(1, 2), (1, (gq_tp - 1) * hop_q + n_fft_q), (1, n_fft_q),
                                      stride=(1, hop_q))
         return y.reshape(SB, -1)[:, : gq_tp * hop_q]
+
+    # O's projection synthesis on the FFT route where it now runs: the
+    # two-launch projection of a grid that the polish does not take, phase
+    # 4g's 4096/1024 sessions with gl_context 1 (1 pinned + 40 + 3 zero
+    # frames), random magnitudes and phases
+    gf_n, gf_hop, gf_ctx = 4096, 1024, 1
+    gf_ov, gf_F = gf_n // gf_hop, gf_n // 2 + 1
+    gf_tp = gf_ctx + 40 + gf_ov - 1
+    gf_win = torch.hann_window(gf_n, device=dev)
+    gm_f = torch.rand((SB, gf_tp, gf_F), generator=gq_g, device=dev)
+    gm_f[:, -(gf_ov - 1):] = 0.0
+    gp_f = 2 * math.pi * torch.rand((SB, gf_tp, gf_F), generator=gq_g, device=dev)
+    gf_ops = ss._decode_operands(gf_win, float(gf_ov), gf_n, gf_hop)
+    gf_fr = float(SB * (gf_tp - (gf_ov - 1)))
+    gf_rows_syn = ss._decode_plan(gf_n, gf_hop, ss.PROJECT_SYN_ROWS)[0]
+    gf_tiles = -(-gf_tp // gf_rows_syn)
+
+    def lib_proj_synth_f():
+        fr = torch.fft.irfft(torch.polar(gm_f, gp_f), n=gf_n) * (gf_win / gf_ov)
+        y = torch.nn.functional.fold(fr.transpose(1, 2), (1, (gf_tp - 1) * gf_hop + gf_n), (1, gf_n),
+                                     stride=(1, gf_hop))
+        return y.reshape(SB, -1)[:, : gf_tp * gf_hop]
+
+    # O's projection analysis where its route now runs: the two-launch
+    # projection of a grid that the polish does not take, here 1200/300's
+    # (n_fft no power of two); the analysis against its plain version on the
+    # synthesis's signal, the pinned and frozen rows untouched
+    gq_tx = gq_tp - (ov_q - 1)
+    gq_lo, gq_hi = q_rt.gl_frozen(8)
+    gq_wc, gq_ws = ss._ana_basis(q_rt.window, n_fft_q, ss._k_analysis(n_fft_q))
+    gq_y = ss._launch_decode(gm_q, gp_q, gq_ops, n_fft_q, hop_q, rows=ss.PROJECT_SYN_ROWS, name="gl_project_synthesis")
+    gq_scratch = gp_q.clone()
+
+    def plain_proj_analysis_q():
+        fr = gq_y.unfold(-1, n_fft_q, hop_q)[:, g_ctx:gq_tx]
+        return torch.atan2(torch.matmul(fr, gq_ws[:n_fft_q]), torch.matmul(fr, gq_wc[:n_fft_q]))
+
+    def lib_proj_analysis_q():
+        fr = gq_y.unfold(-1, n_fft_q, hop_q)[:, g_ctx:gq_tx] * q_rt.window
+        return torch.angle(torch.fft.rfft(fr, n=n_fft_q))
+
+    ss._launch_project_analysis(gq_y, gq_scratch, gq_wc, gq_ws, n_fft_q, hop_q, gq_tx, g_ctx, gq_lo, gq_hi)
+    a_p = plain_proj_analysis_q()
+    upd_q = torch.ones(gq_tx - g_ctx, dtype=torch.bool, device=dev)
+    upd_q[gq_lo - g_ctx: gq_hi - g_ctx] = False
+    e_oa = (unit_spec(gm_q[:, g_ctx:gq_tx][:, upd_q], gq_scratch[:, g_ctx:gq_tx][:, upd_q])
+            - unit_spec(gm_q[:, g_ctx:gq_tx][:, upd_q], a_p[:, upd_q])).abs().max().item()
+    kept_q = torch.equal(gq_scratch[:, :g_ctx], gp_q[:, :g_ctx]) and torch.equal(
+        gq_scratch[:, gq_lo:gq_hi], gp_q[:, gq_lo:gq_hi])
+    log(f"  O's projection analysis at 1200/300 ({gq_tx - g_ctx} polished frames, 64 sessions) against its plain "
+        f"version: |X| (cos, sin) off by {e_oa:.3e} (tol 1e-04); pinned and frozen rows kept: {kept_q}")
+    require(e_oa <= 1e-4 and kept_q, "O's projection analysis at 1200/300 disagrees with its plain version")
+    errs["Oana"] = max(errs.get("Oana", 0.0), e_oa)
+    gq_el = float(SB * (gq_tx - g_ctx - (gq_hi - gq_lo)) * F_q)
+    gq_upd = gq_tx - g_ctx - (gq_hi - gq_lo)
+    gq_samples = 4.0 * SB * (gq_tp - g_ctx) * hop_q
+    gq_ana_flops = 4.0 * SB * (gq_tx - g_ctx) * ss._k_analysis(n_fft_q) * 128 * -(-F_q // 128)
+    # O's polish (phase 4g's shape, the grid of gl_context 3 + 16 frames and 3
+    # zero frames, 64 sessions, gl_iterations 16 projections in one launch).
+    # What the function needs: the grid's magnitudes and phases read once and
+    # the polished rows' phases written once; per projection the synthesis's
+    # and the analysis's operations as the Osyn and Oana rows count them.  Its
+    # design: per projection frames_irfft of the Tp + overlap - 1 frames from
+    # -(overlap - 1) (the decode's pairs) and frames_rfft of the polished
+    # rows, sincos and two products per grid bin (22), an atan2 (20) per
+    # written bin.  Yardstick: gl_iterations times the two projection
+    # yardsticks below.
+    g_iters = g_rt.gl_iterations
+    g_pol = gp.clone()
+    pol_frames = g_tp + ov - 1
+    pol_pairs = sum((pol_frames - 1 - c) // (2 * ov) + 1 for c in range(ov))
+    pol_design = g_iters * (fft_design_flops(N_FFT, 2 * SB * pol_pairs) + fft_design_flops(N_FFT, 2 * SB * -(-g_rows // 2))
+                            + 22.0 * SB * g_tp * F + 20.0 * g_el)
+    pol_need = g_iters * (2.5 * N_FFT * math.log2(N_FFT) * (g_fr + SB * g_upd) + N_FFT * (g_fr + SB * g_upd)
+                          + 22.0 * g_fr * F + 20.0 * g_el)
+
+    def lib_polish():
+        for _ in range(g_iters):
+            lib_proj_synth()
+            lib_proj_analysis()
     s_m, s_prev, s_pp, s_a = (gl_stream[k] for k in ("m", "prev", "pp", "a"))
     s_tt = s_m.shape[1]
     rs_args = (g_rt.gamma, N_FFT, HOP, g_rt.tolerance, s_tt)
@@ -3517,14 +3788,15 @@ def main() -> int:
     specs += [
         dict(key="Osyn", name="gl_project_synthesis", source=stream_src + " (+ csrc/fft_smem.cuh)", front_end="fft",
              replaces=stream_tpu + ":940", launches=counts["gl_project_synthesis:fft"],
-             run=lambda: ss._launch_decode(gm, gp, g_syn, N_FFT, HOP, rows=ss.PROJECT_SYN_ROWS,
+             run=lambda: ss._launch_decode(gm_f, gp_f, gf_ops, gf_n, gf_hop, rows=ss.PROJECT_SYN_ROWS,
                                            name="gl_project_synthesis"),
-             plain=lambda: ss._synthesis_reference(gm * torch.cos(gp), gm * torch.sin(gp), g_rt.inv_window,
-                                                   float(ov), N_FFT, HOP, g_tp),
-             library=lib_proj_synth,
-             bound=bound_of(8.0 * g_fr * F + g_samples,
-                            2.5 * N_FFT * math.log2(N_FFT) * g_fr + N_FFT * g_fr + 22.0 * g_fr * F),
-             ceiling=ceiling_of(fft_design_flops(N_FFT, SB * g_tiles * (g_rows_syn + 2 * ov)) + 22.0 * g_fr * F)),
+             plain=lambda: ss._synthesis_reference(gm_f * torch.cos(gp_f), gm_f * torch.sin(gp_f), gf_win,
+                                                   float(gf_ov), gf_n, gf_hop, gf_tp),
+             library=lib_proj_synth_f,
+             bound=bound_of(8.0 * gf_fr * gf_F + 4.0 * SB * (gf_tp - gf_ctx) * gf_hop,
+                            2.5 * gf_n * math.log2(gf_n) * gf_fr + gf_n * gf_fr + 22.0 * gf_fr * gf_F),
+             ceiling=ceiling_of(fft_design_flops(gf_n, SB * gf_tiles * (gf_rows_syn + 2 * gf_ov))
+                                + 22.0 * gf_fr * gf_F)),
         dict(key="Osyn_product", name="gl_project_synthesis_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
              front_end="product", replaces=stream_tpu + ":940", launches=counts["gl_project_synthesis:product"],
              run=lambda: ss._launch_decode(gm_q, gp_q, gq_ops, n_fft_q, hop_q, rows=ss.PROJECT_SYN_ROWS,
@@ -3535,14 +3807,22 @@ def main() -> int:
              bound=bound_of(8.0 * gq_fr * F_q + 4.0 * SB * (gq_tp - g_ctx) * hop_q,
                             2.5 * n_fft_q * math.log2(n_fft_q) * gq_fr + n_fft_q * gq_fr + 22.0 * gq_fr * F_q),
              ceiling=ceiling_of(2.0 * SB * -(-gq_tp // 8) * 8 * ov_q * ss._k_padded(F_q) * hop_q + 22.0 * gq_fr * F_q)),
+        dict(key="Opol", name="gl_polish", source=stream_src + " (+ csrc/fft_smem.cuh)", front_end="fft",
+             replaces=stream_tpu + ":940", launches=counts["gl_polish:fft"],
+             run=lambda: ss.gl_polish(gm, g_pol, g_syn, g_rt.inv_window, g_rt.window, None, None, N_FFT, HOP, g_ctx,
+                                      g_lo, g_hi, g_iters),
+             plain=lambda: ss.gl_polish_reference(gm, gp, g_rt.inv_window, g_rt.window, N_FFT, HOP, g_ctx, g_lo,
+                                                  g_hi, g_iters),
+             library=lib_polish, bound=bound_of(8.0 * g_fr * F + 4.0 * g_el, pol_need),
+             ceiling=ceiling_of(pol_design)),
         dict(key="Oana", name="gl_project_analysis", source=stream_src,
              replaces=stream_tpu + ":940", launches=counts["gl_project_analysis"],
-             run=lambda: ss._launch_project_analysis(g_y, g_scratch, g_wc, g_ws, N_FFT, HOP, g_tx, g_ctx,
-                                                     g_lo, g_hi),
-             plain=plain_proj_analysis, library=lib_proj_analysis,
-             bound=bound_of(g_samples + 4.0 * g_el,
-                            2.5 * N_FFT * math.log2(N_FFT) * SB * g_upd + N_FFT * SB * g_upd + 20.0 * g_el),
-             ceiling=ceiling_of(ana_flops(SB * g_rows) + 20.0 * g_el)),
+             run=lambda: ss._launch_project_analysis(gq_y, gq_scratch, gq_wc, gq_ws, n_fft_q, hop_q, gq_tx, g_ctx,
+                                                     gq_lo, gq_hi),
+             plain=plain_proj_analysis_q, library=lib_proj_analysis_q,
+             bound=bound_of(gq_samples + 4.0 * gq_el,
+                            2.5 * n_fft_q * math.log2(n_fft_q) * SB * gq_upd + n_fft_q * SB * gq_upd + 20.0 * gq_el),
+             ceiling=ceiling_of(gq_ana_flops + 20.0 * gq_el)),
         dict(key="RTs", name="rt_pghi_seeded", source="acids_transforms_tpu_torch/csrc/pghi.cu",
              replaces=stream_tpu + ":668", launches=counts["rt_pghi_seeded"],
              run=lambda: ss._launch_rt_pghi(s_m, s_a, *rs_args, s_prev, s_pp),
@@ -3592,15 +3872,21 @@ def main() -> int:
             f"{b_by} ({100 * b_ms / k_ms:.1f}% of it reached); fp32 ceiling of this design "
             f"{s['ceiling']:.3f} ms ({100 * s['ceiling'] / k_ms:.1f}%){single}{extra}")
 
-    # O's host share: a projection's two launches enqueued back to back
-    # behind a sleep kernel, so that the card never waits for the host while
-    # the host's time is taken
+    # O's host share: a chunk's polish (one launch) and, for the grids the
+    # polish does not take, a projection's two launches, enqueued back to
+    # back behind a sleep kernel, so that the card never waits for the host
+    # while the host's time is taken
     for b in (1, SB):
         mb, pb = gm[:b].contiguous(), gp[:b].clone()
         h_ms, d_ms = host_and_device_ms(
+            lambda: ss.gl_polish(mb, pb, g_syn, g_rt.inv_window, g_rt.window, None, None, N_FFT, HOP, g_ctx, g_lo,
+                                 g_hi, g_iters), 20)
+        log(f"  O polish at B={b}: host {h_ms:.4f} ms a chunk ({g_iters} projections, one launch) to enqueue, card "
+            f"{'not isolated' if d_ms is None else format(d_ms, '.4f') + ' ms'} a chunk back to back")
+        h_ms, d_ms = host_and_device_ms(
             lambda: ss.gl_project(mb, pb, g_syn, g_rt.inv_window, g_rt.window, g_wc, g_ws, N_FFT, HOP,
                                   g_ctx, g_lo, g_hi), 100)
-        log(f"  O projection at B={b}: host {h_ms:.4f} ms a projection to enqueue, card "
+        log(f"  O two-launch projection at B={b}: host {h_ms:.4f} ms a projection to enqueue, card "
             f"{'not isolated' if d_ms is None else format(d_ms, '.4f') + ' ms'} a projection back to back")
 
     # J at 4096/512 (the FFT route; its product block needed slabs of the
@@ -3631,6 +3917,9 @@ def main() -> int:
             f"{d_ph:.3g} rad of {ph_max:.3g}")
     sweep_phase(args, dev, mono, bank, off, scl, taps_main, kernels, bound_of,
                 (spectral, glstep, pghi_kernel, ss))
+    # every row's kernel ran on a path of this run, except I's (no caller)
+    idle = [r["name"] for r in kernels if r["launches"] < 1 and r["name"] not in ("gl_project", "gl_project_product")]
+    require(not idle, f"kernels launched no time on their paths: {idle}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

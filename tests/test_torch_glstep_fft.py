@@ -157,7 +157,7 @@ def test_the_leak_of_bin_0s_imaginary_part():
     direct = -(2.0 / n_fft) * sum(taps_t[p] * np.sin(p * ang) for p in range(1, len(taps_t)))
     assert np.abs(table - direct).max() <= 1e-7 * np.abs(direct).max()
     # the same schedule without the term
-    w_t, = tensors(pk._taps_window(taps_t, n_fft))
+    w_t, = tensors(pk.taps_window(taps_t, n_fft))
     m_t, are_t, aim_t = tensors(mag, st[0], st[1])
     frames = pk._fft_frames(m_t, are_t, aim_t, n_fft, hop, w_t)
     sig = overlap_add_classes(frames, hop) / env.reshape(-1)
@@ -200,7 +200,7 @@ def emulate_blocks(mag, are, aim, env, n_fft, hop, taps, tile_t, lead):
     ov = n_fft // hop
     B, T, F = mag.shape
     taps = tuple(float(t) for t in taps)
-    w = torch.as_tensor(pk._taps_window(taps, n_fft))
+    w = torch.as_tensor(pk.taps_window(taps, n_fft))
     leak = torch.as_tensor(pk._leak_table(taps, n_fft))
     env = env.reshape(-1)
     rre, rim = torch.empty_like(mag), torch.empty_like(mag)
