@@ -2,11 +2,11 @@
 //
 // Replaces, from the JAX package's ops/pallas/spectral.py:
 //   melspec_forward_kernel<.., kFrontFactored>  <- _forward_kernel_factored  (via _fused_call /
-//                                      fused_melspec)
+//                                      fused_melspec; where n_fft is a power of two from
+//                                      64 to 4096 the wrapper sends it to the kFrontFft
+//                                      instance under the taps' own window)
 //   melspec_stats_kernel<.., kFrontFactored>    <- _stats_kernel_factored    (via _stats_call /
-//                                      fused_melspec_stats; where n_fft is a power of two
-//                                      from 64 to 4096 the wrapper sends it to the
-//                                      kFrontFft instance under the taps' own window)
+//                                      fused_melspec_stats; the same rule)
 //   melspec_forward_kernel<.., kFrontFft / kFrontProduct>  <- _forward_kernel  (full-K: any
 //                                      window, taps=None)
 //   melspec_stats_kernel<.., kFrontFft / kFrontProduct>    <- _stats_kernel    (full-K)
@@ -14,7 +14,9 @@
 //                                     fused_spectral_repr), epilogue _repr_channels
 //   repr_forward_kernel<.., kFrontFft / kFrontProduct>  <- _repr_kernel  (full-K)
 //   repr_stats_kernel<.., kFrontFactored>   <- _repr_stats_kernel_factored (via
-//                                     _repr_stats_call / fused_repr_stats)
+//                                     _repr_stats_call / fused_repr_stats; where n_fft is
+//                                     a power of two from 64 to 4096 the wrapper sends it
+//                                     to the kFrontFft instance under the taps' own window)
 //   repr_stats_kernel<.., kFrontFft / kFrontProduct>    <- _repr_stats_kernel  (full-K)
 //   stats_reduce_kernel     <- the accumulation the TPU kernel carried across its
 //                              sequential grid (_stats_update)

@@ -85,8 +85,9 @@ def taps_window(taps: Tuple[float, ...], n_fft: int) -> np.ndarray:
     """The cosine-sum window of ``taps``, ``w[i] = taps[0] + 2 sum_{p >= 1}
     taps[p] cos(2 pi p i / n_fft)``, built in float64 and rounded once: the
     window the factored front end's taps conv applies, which the FFT route
-    applies in the time domain (the Griffin-Lim step C / D / I and the fit's
-    statistics B), so that both routes compute one function of the taps."""
+    applies in the time domain (the Griffin-Lim step C / D / I, the log-mel
+    forward and fit A and B, the representations' fit statistics H), so that
+    both routes compute one function of the taps."""
     ang = 2.0 * np.pi * np.arange(n_fft) / n_fft
     w = sum((1.0 if p == 0 else 2.0) * c * np.cos(p * ang) for p, c in enumerate(taps))
     return np.asarray(w, dtype=np.float32)

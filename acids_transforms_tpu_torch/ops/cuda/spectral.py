@@ -21,11 +21,11 @@ power of two from 64 to 4096 the FFT route (``csrc/fft_smem.cuh:frames_rfft``,
 the window and a twiddle table, no basis; plain version
 ``frames_fft.frames_rfft_reference``), elsewhere the product route (a basis of
 ``n_fft x 2F`` with the window folded in, ``overlap`` times the multiply-adds
-of the factored form).  The statistics with ``taps`` (kernel B) take the same
-FFT route by the same rule, under the taps' own window
-(``frames_fft.taps_window``): F's instance computes B's function for any
-window.  The forward with ``taps`` (kernel A) stays factored: the rule is per
-launch kind (:func:`_kernel_plan`).  All need ``hop | n_fft``.
+of the factored form).  The forward and the statistics with ``taps`` (kernels
+A and B) take the same FFT route by the same rule, under the taps' own window
+(``frames_fft.taps_window``): E's and F's instances compute A's and B's
+functions for any window.  Every other ``n_fft`` keeps the factored front end
+(:func:`_kernel_plan`).  All need ``hop | n_fft``.
 
 ``fused_spectral_repr`` and ``fused_repr_stats`` are the two-channel twins
 (Polar, PolarIF, Cartesian): one DFT feeds channel 1 (``|X|`` through mel,
@@ -34,8 +34,11 @@ instantaneous frequency, or ``Im``) with an affine each.  Their full-K front
 end (kernels G and H full-K) takes the same two routes by the same rule; on
 the FFT route a block with the IF computes two frames before its tile (the
 halo frame and its FFT partner), so that every frame goes through the FFT
-with the partner it has in the plain version's whole-clip schedule.
-``routes`` counts the launches of the full-K kernels by route.
+with the partner it has in the plain version's whole-clip schedule.  The
+statistics with ``taps`` (kernel H) take H full-K's FFT route under the taps'
+own window where ``fft_covers(n_fft)``; the forward with ``taps`` (kernel G)
+stays factored: the rule is per launch kind (:func:`_repr_plan`).
+``routes`` counts the launches by route.
 
 ``melspec_forward_stage`` runs the factored forward cut after one of its
 stages (``STAGES``) on prepared rows: the kernel of the floor sweep
@@ -103,13 +106,14 @@ launches: Dict[str, int] = {
 }
 #: the launches by route, ``"<kernel>:fft"`` / ``"<kernel>:product"`` /
 #: ``"<kernel>:factored"`` (each also counts in ``launches``): the full-K
-#: kernels, and A and B with taps (B's statistics take the FFT route where
-#: ``fft_covers(n_fft)``, A stays factored)
+#: kernels, and A, B, G and H with taps (A, B and H take the FFT route where
+#: ``fft_covers(n_fft)``, G stays factored)
 routes: Dict[str, int] = {
     "fused_melspec_fullk:fft": 0, "fused_melspec_fullk:product": 0,
     "fused_melspec_stats_fullk:fft": 0, "fused_melspec_stats_fullk:product": 0,
-    "fused_melspec:factored": 0, "fused_melspec_stats:fft": 0, "fused_melspec_stats:factored": 0,
-    "fused_spectral_repr:factored": 0, "fused_repr_stats:factored": 0,
+    "fused_melspec:fft": 0, "fused_melspec:factored": 0,
+    "fused_melspec_stats:fft": 0, "fused_melspec_stats:factored": 0,
+    "fused_spectral_repr:factored": 0, "fused_repr_stats:fft": 0, "fused_repr_stats:factored": 0,
     "fused_spectral_repr_fullk:fft": 0, "fused_spectral_repr_fullk:product": 0,
     "fused_repr_stats_fullk:fft": 0, "fused_repr_stats_fullk:product": 0,
 }
@@ -317,14 +321,15 @@ def _fullk_spectrum(x, n_fft, hop, center, window):
     return torch.matmul(frames, WC), torch.matmul(frames, WS)
 
 
-def _spectrum(x, n_fft, hop, center, taps, window, stats: bool = False):
+def _spectrum(x, n_fft, hop, center, taps, window, factored: bool = False):
     """(re, im) of the front end and route the kernels take: the full-K one
-    on its route without ``taps``; with them the factored front end, except
-    for the statistics (``stats``) where ``fft_covers(n_fft)``, which take
-    the FFT route's schedule under the taps' own window."""
+    on its route without ``taps``; with them, where ``fft_covers(n_fft)``,
+    the FFT route's schedule under the taps' own window, else the factored
+    front end.  ``factored``: the factored front end with taps at every
+    ``n_fft`` (the forward of the representations, G)."""
     if taps is None:
         return _fullk_spectrum(x, n_fft, hop, center, window)
-    if stats and fft_covers(n_fft):
+    if not factored and fft_covers(n_fft):
         (w,) = _tables(taps_window, x.device, tuple(float(t) for t in taps), n_fft)
         return _fullk_spectrum(x, n_fft, hop, center, w)
     return _factored_spectrum(x, n_fft, hop, center, taps)
@@ -369,9 +374,17 @@ def fused_melspec_reference(
     out_dtype: torch.dtype = torch.float32,
     window: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_melspec` (same arguments)."""
+    """Plain PyTorch version of :func:`fused_melspec` (same arguments), on the
+    route the kernel takes (with ``taps`` the FFT route's schedule under the
+    taps' own window where ``fft_covers(n_fft)``)."""
     _check_input(x, n_fft, hop_length, taps, window)
     re, im = _spectrum(x, n_fft, hop_length, center, taps, window)
+    return _melspec_epilogue(re, im, mel_bank, offset, scale, contrast, power, out_dtype)
+
+
+def _melspec_epilogue(re, im, mel_bank, offset, scale, contrast, power, out_dtype) -> torch.Tensor:
+    """What the forward does after its front end, whichever front end gave
+    ``(re, im)``: power or magnitude, mel product, contrast, affine, store."""
     mag = re * re + im * im
     if power != 2.0:
         mag = torch.sqrt(mag)
@@ -395,7 +408,7 @@ def fused_melspec_stats_reference(
     window where ``fft_covers(n_fft)``)."""
     x = x.reshape((-1, x.shape[-1]))
     _check_input(x, n_fft, hop_length, taps, window)
-    re, im = _spectrum(x, n_fft, hop_length, center, taps, window, stats=True)
+    re, im = _spectrum(x, n_fft, hop_length, center, taps, window)
     v = _apply_contrast(torch.sqrt(re * re + im * im), contrast)
     vd = v.double()
     return {
@@ -462,13 +475,12 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def _kernel_plan(n_fft, hop, taps, stats: bool = False) -> Tuple[int, int]:
-    """``(tile_t, teams)`` of the forward (A, E) or, ``stats``, the
-    statistics (B, F) for this shape, ``teams = 0`` off the FFT route, or
-    raise: the kernels never give way.  The FFT route takes every launch
-    where ``fft_covers(n_fft)``, except the forward with ``taps`` (A), which
-    stays on the factored front end; the rule is per launch kind."""
-    if (taps is None or stats) and fft_covers(n_fft) and fused_melspec_available(n_fft, hop, taps):
+def _kernel_plan(n_fft, hop, taps) -> Tuple[int, int]:
+    """``(tile_t, teams)`` of the forward (A, E) and the statistics (B, F)
+    for this shape, ``teams = 0`` off the FFT route, or raise: the kernels
+    never give way.  The FFT route takes every launch where
+    ``fft_covers(n_fft)``, with taps (under their own window) or without."""
+    if fft_covers(n_fft) and fused_melspec_available(n_fft, hop, taps):
         plan = _pick_fft_plan(n_fft, hop)
         if plan is None:
             raise NotImplementedError(
@@ -612,7 +624,7 @@ def fused_melspec_stats(
     if not x.is_cuda:
         return fused_melspec_stats_reference(x, n_fft, hop_length, contrast, center, taps, window)
     _check_input(x, n_fft, hop_length, taps, window)
-    tile_t, teams = _kernel_plan(n_fft, hop_length, taps, stats=True)
+    tile_t, teams = _kernel_plan(n_fft, hop_length, taps)
     if contrast not in _CONTRASTS:
         _apply_contrast(x, contrast)  # raises with the reason
     dev = x.device
@@ -684,11 +696,14 @@ def _if_rows(ph: torch.Tensor, weighted: bool) -> torch.Tensor:
     return v
 
 
-def _repr_channels(x, n_fft, hop, center, taps, window, second, contrast, mel_bank, weighted):
+def _repr_channels(x, n_fft, hop, center, taps, window, second, contrast, mel_bank, weighted,
+                   stats: bool = False):
     """Pre-affine (channel 1, channel 2) of the representation kernels, on
-    the front end and route the kernel takes (the FFT route's schedule over
-    the whole clip where ``taps=None`` and ``fft_covers(n_fft)``)."""
-    re, im = _spectrum(x, n_fft, hop, center, taps, window)
+    the front end and route the kernel takes: the FFT route's schedule over
+    the whole clip where ``fft_covers(n_fft)`` and ``taps=None``, or with
+    ``taps`` for the statistics (``stats``, H) under the taps' own window;
+    the forward with ``taps`` (G) on the factored front end."""
+    re, im = _spectrum(x, n_fft, hop, center, taps, window, factored=not stats)
     im = _pin_nyquist(im)
     if second == "imag":
         return re, im
@@ -736,13 +751,15 @@ def fused_repr_stats_reference(
     taps: Optional[tuple] = None,
     window: Optional[torch.Tensor] = None,
 ) -> dict:
-    """Plain PyTorch version of :func:`fused_repr_stats`."""
+    """Plain PyTorch version of :func:`fused_repr_stats`, on the route the
+    kernel takes (with ``taps`` the FFT route's schedule under the taps' own
+    window where ``fft_covers(n_fft)``)."""
     x = x.reshape((-1, x.shape[-1]))
     _check_repr(x, n_fft, hop_length, second, taps, window)
     if second == "imag":
         contrast = "none"
     c1, c2 = _repr_channels(x, n_fft, hop_length, center, taps, window, second, contrast,
-                            None, weighted)
+                            None, weighted, stats=True)
 
     def chan(v):
         vd = v.double()
@@ -772,9 +789,12 @@ def _repr_kernel_tile(n_fft, hop, taps) -> int:
 
 def _repr_plan(n_fft, hop, taps, stats, second, mel) -> Tuple[int, int]:
     """``(tile_t, teams)`` of the representation kernels for this shape,
-    ``teams = 0`` off the FFT route (which ``taps=None`` and
-    ``fft_covers(n_fft)`` select), or raise: the kernels never give way."""
-    if taps is None and fft_covers(n_fft) and fused_melspec_available(n_fft, hop, taps):
+    ``teams = 0`` off the FFT route, or raise: the kernels never give way.
+    ``fft_covers(n_fft)`` selects the FFT route for every launch without
+    taps and for the statistics (H) with them; the forward with taps (G)
+    stays factored.  The rule is per launch kind."""
+    if ((taps is None or stats) and fft_covers(n_fft)
+            and fused_melspec_available(n_fft, hop, taps)):
         plan = _pick_repr_fft_plan(n_fft, hop, stats, second, mel)
         if plan is None:
             raise _repr_refusal(n_fft, hop)

@@ -2,7 +2,9 @@
 
     python -m acids_transforms_tpu_torch.tools.sweep_kernel_floor [--batch 128] [--iters 50] [--seed 0]
 
-Builds A up stage by stage, each stage a kernel of its own with A's grid,
+It measures A's chunk-factored design, the front end the public forward
+keeps where n_fft is no power of two (at 1024/256 the forward takes the
+FFT route, ``ops/cuda/spectral.py:_kernel_plan``).  Builds A up stage by stage, each stage a kernel of its own with A's grid,
 threads and shared memory (``ops/cuda/spectral.py:melspec_forward_stage``,
 kernel T of ``csrc/spectral.cu``), and times each on the same prepared rows,
 so that each increment is the time that stage adds to A; a cut inside the

@@ -32,27 +32,34 @@ have two routes, picked by n_fft alone: a shared-memory FFT
 (``csrc/fft_smem.cuh``: ``frames_rfft`` for the analyses, ``frames_irfft``
 for the syntheses of C, D, I, J, L, M, K, P, S and O) at a power of two
 from 64 to 4096, the window-folded products elsewhere; so do the log-mel
-fit's statistics (B: F's FFT instance under the taps' own window, the
-factored front end elsewhere; the forward A stays factored), and O's polish
+forward and fit (A and B: E's and F's FFT instances under the taps' own
+window, the factored front end elsewhere), the representations' fit
+statistics with taps (H: H full-K's instance under the taps' own window;
+the forward G stays factored), and O's polish
 (``gl_polish_fft_kernel``: every projection of a chunk in one launch, where
 its block holds the grid; two launches a projection elsewhere).  Phases 3 and 4f
 hold the FFT route against its plain version (within 1e-5 for R, E and F;
 1e-6 for C, D, I, J, L, M, K's synthesis, G, H, P, S and O's synthesis,
-which come out bit-identical) and against a float64 oracle at 1024, 512,
+which come out bit-identical; A within 2e-5 and B and H with taps with their
+extrema bit-identical and sums within 1e-5, at every power of two from 64
+under hann, hamming and blackman) and against a float64 oracle at 1024, 512,
 2048 and 4096 (C, D, I, K, G, H, P, S and O's synthesis at every power of
-two from 64), and the product route at 768/256 (E, F, J, K, G, H), 768/192
+two from 64), the factored route at 768/192 (A, B, H), and the product
+route at 768/256 (E, F, J, K, G, H), 768/192
 (C, D, I, K), 8192/2048 (J), 1200/300 (R, L, M, K, P, S, O's synthesis) and
 960/240 (R); the launch counters' route tally shows every main-path launch
-of the sixteen on the FFT route, and phase 4h drives the product routes
-through the entry points (1200/300 sessions, the complex decode included,
-an STFT(768, 192) Griffin-Lim invert, a DGT(768, 256) chain's fit,
+of the nineteen on the FFT route, and phase 4h drives the product and
+factored routes through the entry points (1200/300 sessions, the complex
+decode included, an STFT(768, 192) Griffin-Lim invert, STFT(768, 192)
+log-mel and Polar chains' fit and forward, a DGT(768, 256) chain's fit,
 forward, ``pghi`` and ``pghi_gl``, DGT(768, 256) + PolarIF's fit and
 forward).  Phase
-6 runs the floor sweep of A
+6 runs the floor sweep of A's factored design
 (``acids_transforms_tpu_torch.tools.sweep_kernel_floor``: kernel T, A cut
 after each of its stages) at the main path's shape, prints each stage's
 increment beside its own floor, and holds every stage against its plain
-version (``s7_full`` bit-identical to A).  It shows by
+version; at 768/192, where A keeps the factored front end, ``s7_full`` is
+bit-identical to A and within 10 % of its time.  It shows by
 the launch counters that each path went through its kernels, times them, and
 prints
 
@@ -63,9 +70,10 @@ prints
   for the function (``bound_ms``: bytes moved once, or the operations an FFT
   formulation needs), and apart from the bound the fp32
   ceiling of the kernel's own design (the product's multiply-adds, or the
-  FFT route's operations, at 67 TFLOP/s); ``front_end`` "fft" or "product"
-  on the rows of R, the magnitude encode, C, D, E, F, I, J, L, M, K's
-  synthesis, G and H full-K, P, S and O's synthesis, one row a route),
+  FFT route's operations, at 67 TFLOP/s); ``front_end`` "fft", "product"
+  or "factored" on the rows of A, B, H, R, the magnitude encode, C, D, E,
+  F, I, J, L, M, K's synthesis, G and H full-K, P, S and O's synthesis, one
+  row a route),
 * the card's name and power limit as ``nvidia-smi`` gives them,
 * and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -166,6 +174,29 @@ def host_and_device_ms(fn, n: int):
     e1.record()
     torch.cuda.synchronize()
     return host / n, (e0.elapsed_time(e1) / n if host < e_s.elapsed_time(e0) else None)
+
+
+def path_split(att, chain, x, runs: int = 5) -> dict:
+    """fit + forward of a chain through the entry points, host clock, median
+    over ``runs``: the wall time to the card's end (``wall``) and the host's
+    time to return from ``fuse_fit`` (``fit``), from building the fused
+    forward (``build``) and from calling it (``forward``), nothing
+    synchronised in between (the kernels run behind the host).  Where
+    ``fit + build + forward`` nears ``wall``, the host holds the path."""
+    rows = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fitted = att.fuse_fit(chain)(x)
+        t1 = time.perf_counter()
+        fwd = att.fuse_forward(fitted)
+        t2 = time.perf_counter()
+        fwd(x)
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        rows.append((t4 - t0, t1 - t0, t2 - t1, t3 - t2))
+    return {k: 1e3 * statistics.median(r[i] for r in rows) for i, k in enumerate(("wall", "fit", "build", "forward"))}
 
 
 def nvidia_smi_line() -> str:
@@ -1603,24 +1634,52 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
         f"eager chain rel {e_y:.3e} (tol 1e-04)")
     require(torch.isfinite(y_k).all().item() and e_off <= 1e-5 and e_scl <= 1e-5 and e_y <= 1e-4,
             "DGT(768, 256): the product route differs from the eager chain")
-    # B on the factored route: the fit of the log-mel chain at STFT(768, 192)
-    # (n_fft no power of two; the main path's fit takes the FFT route)
+    # A and B on the factored route: the fit and forward of the log-mel chain
+    # at STFT(768, 192) (n_fft no power of two; the main path's take the FFT
+    # route), and H and G through STFT(768, 192) + Polar's fit and forward
     b_chain = T.Mono() + T.STFT(n_fft=768, hop_length=192) + T.Magnitude(mode="unipolar", contrast="log1p",
                                                                         mel=True, n_fft=768)
     zero()
     b_fit = att.fuse_fit(b_chain)(audio)
+    y_b = att.fuse_forward(b_fit)(audio)
     torch.cuda.synchronize()
     got = {k: v for k, v in sp.routes.items() if v}
-    log(f"  STFT(768, 192) log-mel chain, fit on {tuple(audio.shape)}: launches "
+    log(f"  STFT(768, 192) log-mel chain, fit + forward on {tuple(audio.shape)}: launches "
         f"{ {k: v for k, v in sp.launches.items() if v} }, routes {got}")
-    require(got == {"fused_melspec_stats:factored": 1} and launched() == 1,
-            "STFT(768, 192): B must launch once on the factored route")
-    counts["fused_melspec_stats:factored"] += 1
+    require(got == {"fused_melspec_stats:factored": 1, "fused_melspec:factored": 1} and launched() == 2,
+            "STFT(768, 192): B and A must launch once each on the factored route")
+    for k, v in got.items():
+        counts[k] += v
     e_fit = b_chain.fit(audio)
     e_off = abs(b_fit[2].norm.offset.item() - e_fit[2].norm.offset.item()) / abs(e_fit[2].norm.scale.item())
     e_scl = abs(b_fit[2].norm.scale.item() - e_fit[2].norm.scale.item()) / abs(e_fit[2].norm.scale.item())
-    log(f"    fit offset / scale vs chain.fit: {e_off:.3e} / {e_scl:.3e} of the scale (tol 1e-05)")
-    require(e_off <= 1e-5 and e_scl <= 1e-5, "STFT(768, 192): B's factored route differs from chain.fit")
+    e_y = rel_err(y_b, b_fit.forward(audio))
+    log(f"    fit offset / scale vs chain.fit: {e_off:.3e} / {e_scl:.3e} of the scale (tol 1e-05); forward vs "
+        f"the eager chain rel {e_y:.3e} (tol 1e-04)")
+    require(torch.isfinite(y_b).all().item() and e_off <= 1e-5 and e_scl <= 1e-5 and e_y <= 1e-4,
+            "STFT(768, 192): A and B's factored route differs from the eager chain")
+    del y_b
+    p_chain = T.Mono() + T.STFT(n_fft=768, hop_length=192) + T.Polar(
+        magnitude_args={"mode": "bipolar", "n_fft": 768})
+    zero()
+    p_fit = att.fuse_fit(p_chain)(audio)
+    y_p = att.fuse_forward(p_fit)(audio)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in sp.routes.items() if v}
+    log(f"  STFT(768, 192) + Polar, fit + forward on {tuple(audio.shape)}: launches "
+        f"{ {k: v for k, v in sp.launches.items() if v} }, routes {got}")
+    require(got == {"fused_repr_stats:factored": 1, "fused_spectral_repr:factored": 1} and launched() == 2,
+            "STFT(768, 192) + Polar: H and G must launch once each on the factored route")
+    counts["fused_repr_stats:factored"] += 1
+    e_fit = p_chain.fit(audio)
+    e_m = max(abs(getattr(p_fit[2].magnitude.norm, a).item() - getattr(e_fit[2].magnitude.norm, a).item())
+              for a in ("offset", "scale")) / abs(e_fit[2].magnitude.norm.scale.item())
+    e_y = rel_err(y_p[..., 0, :], p_fit.forward(audio)[..., 0, :])
+    log(f"    magnitude fit vs chain.fit {e_m:.3e} of the scale (tol 1e-05); channel 1 vs the eager chain rel "
+        f"{e_y:.3e} (tol 1e-04)")
+    require(torch.isfinite(y_p).all().item() and e_m <= 1e-5 and e_y <= 1e-4,
+            "STFT(768, 192) + Polar: the factored route differs from the eager chain")
+    del y_p
     # J on the product route: that chain's pghi_gl inversion (n_fft 768 is no
     # power of two), converging like the eager loop from the same seed
     dgt = d_fit[1]
@@ -1691,16 +1750,21 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
 
 
 def sweep_phase(args, dev, mono, bank, off, scl, taps, kernels, bound_of, wrappers):
-    """Phase 6: kernel T, A built up stage by stage.  Runs the floor sweep
-    through its entry point at the main path's shape (its own additive
-    signal, as the tool has it) and counts its launches, prints each stage's
-    increment beside that increment's own floor, holds every stage against
-    its plain version on the main path's clips (``s7_full`` bit-identical to
-    A, and within 10 % of A's phase-5 time), and appends row T."""
+    """Phase 6: kernel T, A's factored design built up stage by stage.  Runs
+    the floor sweep through its entry point at the main path's shape (its
+    own additive signal, as the tool has it) and counts its launches, prints
+    each stage's increment beside that increment's own floor, holds every
+    stage against its plain version on the main path's clips, and, at
+    768/192 where A keeps the factored front end (the main path's A takes the
+    FFT route), ``s7_full`` bit-identical to A and within 10 % of phase 5's
+    row A_factored; appends row T."""
+    from acids_transforms_tpu_torch import transforms as T
     from acids_transforms_tpu_torch.ops.cuda import spectral
+    from acids_transforms_tpu_torch.ops.fft import taps_for_window
+    from acids_transforms_tpu_torch.ops.windows import get_window
     from acids_transforms_tpu_torch.tools import sweep_kernel_floor as sweep_tool
 
-    log("[6] kernel T: A built up stage by stage (the floor sweep), CUDA events over "
+    log("[6] kernel T: A's factored design built up stage by stage (the floor sweep), CUDA events over "
         f"{sweep_tool.RUNS} x {sweep_tool.ITERS} launches back to back")
     for w in wrappers:
         w.reset_launches()
@@ -1775,34 +1839,66 @@ def sweep_phase(args, dev, mono, bank, off, scl, taps, kernels, bound_of, wrappe
             # as A: a few 1e-7 per product through the combine, taps, sqrt, mel
             log(f"  T {name}: f32 rel {e_rel:.3e} (tol 2e-05)")
             require(e_rel <= 2e-5, f"T {name} disagrees with plain")
-    y_a = spectral.fused_melspec(mono, N_FFT, HOP, mel_bank=bank, offset=off, scale=scl, contrast="log1p",
-                                 taps=taps)
     e_86 = rel_err(out["s8_mel_dense"], out["s6_mel_banded"])
-    log(f"  T s7_full bit-identical to A: {torch.equal(out['s7_full'], y_a)}; s8 against s6 rel {e_86:.3e} "
-        f"(tol 1e-06, the banded product is exact), bit-identical: "
+    log(f"  T s8 against s6 rel {e_86:.3e} (tol 1e-06, the banded product is exact), bit-identical: "
         f"{torch.equal(out['s8_mel_dense'], out['s6_mel_banded'])}")
-    require(torch.equal(out["s7_full"], y_a), "T s7_full is not bit-identical to A")
     require(e_86 <= 1e-6, "T s8_mel_dense differs from s6_mel_banded")
-    del out, y_a
+    del out
 
-    # A's phase-5 time is the card's time of a fused_melspec call in a run of
-    # calls back to back: _prepare_rows, then the kernel; s7_full times the
-    # kernel alone on prepared rows
-    a_row = next(r for r in kernels if r["name"] == "fused_melspec")
+    # s7_full is A where A is factored: at 768/192 (phase 5's row A_factored,
+    # the same clips, bank and affine), bit-identical, and its time with
+    # _prepare_rows within 10 % of that row's (a fused_melspec call in a run
+    # of calls back to back: _prepare_rows, then the kernel; so _prepare_rows
+    # then s7_full, timed the same way)
+    n_fft_g, hop_g = 768, 192
+    taps_g = taps_for_window(get_window("hann", n_fft_g, device=dev))
+    bank_g = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=n_fft_g).mel_bank
+    tile_g = spectral._kernel_tile(n_fft_g, hop_g, taps_g)
+    require(spectral._kernel_plan(n_fft_g, hop_g, taps_g) == (tile_g, 0), "A must be factored at 768/192")
+    rows_g, n_fr_g, _ = spectral._prepare_rows(mono, n_fft_g, hop_g, True, tile_g)
+    shape_g = (n_fft_g, hop_g, n_fr_g, taps_g, bank_g, off, scl)
+    spectral.reset_launches()
+    y_s7 = spectral.melspec_forward_stage(rows_g, "s7_full", *shape_g)
+    y_a = spectral.fused_melspec(mono, n_fft_g, hop_g, mel_bank=bank_g, offset=off, scale=scl, contrast="log1p",
+                                 taps=taps_g)
+    torch.cuda.synchronize()
+    same = torch.equal(y_s7, y_a)
+    log(f"  T s7_full at {n_fft_g}/{hop_g} bit-identical to A (factored route, "
+        f"{spectral.routes['fused_melspec:factored']} launch): {same}")
+    require(same and spectral.routes["fused_melspec:factored"] == 1,
+            f"T s7_full is not bit-identical to A at {n_fft_g}/{hop_g}")
+    del y_s7, y_a
+    a_row = next(r for r in kernels if r["name"] == "fused_melspec_factored")
+    s7g_ms = device_ms(lambda: spectral.melspec_forward_stage(rows_g, "s7_full", *shape_g), args.repeats)
+    both_g = device_ms(lambda: spectral.melspec_forward_stage(
+        spectral._prepare_rows(mono, n_fft_g, hop_g, True, tile_g)[0], "s7_full", *shape_g), args.repeats)
+    d_full = both_g / a_row["ms"] - 1.0
+    # the form this check had before A left the factored route at the main
+    # shape, kept in the log beside it: the two parts timed apart and added
+    # (_prepare_rows one call alone, host time included), which counts the
+    # launch gaps of both parts
+    prep_g = time_ms(lambda: spectral._prepare_rows(mono, n_fft_g, hop_g, True, tile_g), args.repeats)
+    d_apart = (s7g_ms + prep_g) / a_row["ms"] - 1.0
+    log(f"  _prepare_rows then s7_full at {n_fft_g}/{hop_g} {both_g:.3f} ms (s7_full alone {s7g_ms:.3f}) against "
+        f"phase 5's A_factored {a_row['ms']:.3f} ms: {100 * d_full:+.1f}% (tol 10 %); s7_full alone "
+        f"{100 * (s7g_ms / a_row['ms'] - 1):+.1f}%; timed apart, s7_full + _prepare_rows "
+        f"{s7g_ms:.3f} + {prep_g:.3f} ms: {100 * d_apart:+.1f}% (reported only)")
+    require(abs(d_full) <= 0.10, "T s7_full with _prepare_rows is not within 10 % of A_factored's time")
+    del rows_g
     s7_ms = res["s7_full"]["ms"]
-    d_full = (s7_ms + prep_ms) / a_row["ms"] - 1.0
-    log(f"  s7_full {s7_ms:.3f} ms + _prepare_rows {prep_ms:.3f} ms against A's phase-5 {a_row['ms']:.3f} ms: "
-        f"{100 * d_full:+.1f}% (tol 10 %); s7_full alone {100 * (s7_ms / a_row['ms'] - 1):+.1f}%")
-    require(abs(d_full) <= 0.10, "T s7_full with _prepare_rows is not within 10 % of A's time")
     plain = time_ms(lambda: spectral.melspec_forward_stage_reference(rows, "s7_full", *shape_t),
                     max(1, args.repeats // 2))
+    # T at the main shape computes A's function: A's bound and library call;
+    # its design is the factored one, whose operations the stages add up to
+    a_main = next(r for r in kernels if r["name"] == "fused_melspec")
+    design = sum(added[k][1] for k in added if k not in ("s0_copy", "s8_mel_dense"))
     kernels.append(dict(
         name="melspec_stage", route="cuda", source="acids_transforms_tpu_torch/csrc/spectral.cu",
         replaces="tools/sweep_kernel_floor.py:110", launches=t_launches, max_abs_err=t_err, ms=s7_ms,
-        kernel_ms=s7_ms, plain_ms=plain, bound_ms=a_row["bound_ms"], bound_by=a_row["bound_by"],
-        library_ms=a_row["library_ms"], design_fma_ceiling_ms=a_row["design_fma_ceiling_ms"]))
+        kernel_ms=s7_ms, plain_ms=plain, bound_ms=a_main["bound_ms"], bound_by=a_main["bound_by"],
+        library_ms=a_main["library_ms"], design_fma_ceiling_ms=1e3 * design / PEAK_FP32_FLOPS))
     log(f"  T melspec_stage (s7_full): {s7_ms:.3f} ms, plain {plain:.3f} ms, {t_launches} launches in the "
-        f"sweep; bound and library as A's")
+        f"sweep; bound and library as A's at the main shape (A's FFT route there: {a_main['ms']:.3f} ms)")
 
 
 def main() -> int:
@@ -1972,17 +2068,31 @@ def main() -> int:
             return ("E", "F"), None, gaussian_dgt_window(n_fft, device=dev)
         return ("A", "B"), taps_for_window(get_window(wname, n_fft)), None
 
-    def check_forward(name, x, n_fft, hop, wname, bank, offset, scale, power=1.0, contrast="log1p"):
-        (A, _), taps, window = front_end(wname, n_fft)
+    def check_forward(name, x, n_fft, hop, wname, bank, offset, scale, power=1.0, contrast="log1p", taps=None):
+        """A or E against its plain version.  A (taps) takes the FFT route
+        wherever n_fft is a power of two from 64 to 4096 (E's instance under
+        the taps' own window: |X| bit-identical to the plain version, the mel
+        product's fmaf sums in another order than cuBLAS), the factored
+        front end elsewhere (row A_factored)."""
+        (A, _), taps_w, window = front_end(wname, n_fft)
+        taps = taps_w if taps is None else taps
         kw = dict(mel_bank=bank, offset=offset, scale=scale, contrast=contrast, taps=taps,
                   window=window, power=power)
+        spectral.reset_launches()
         y_k = spectral.fused_melspec(x, n_fft, hop, **kw)
         y_p = spectral.fused_melspec_reference(x, n_fft, hop, **kw)
         torch.cuda.synchronize()
+        if taps is not None:
+            fft = spectral._kernel_plan(n_fft, hop, taps)[1] > 0
+            route = "fft" if fft else "factored"
+            require(spectral.routes[f"fused_melspec:{route}"] == 1 and fft == ff.fft_covers(n_fft),
+                    f"A {name}: not on the {route} route")
+            A = "A" if fft else "A_factored"
         e = rel_err(y_k, y_p)
         # fp32 sums in another order than cuBLAS: a few 1e-7 per product,
         # through sqrt, mel and log1p; 2e-5 leaves a decade of room
-        log(f"  {A} {name}: f32 rel {e:.3e} (tol 2e-05), shape {tuple(y_k.shape)}")
+        log(f"  {A} {name}{'' if bank is None else ', mel'}{', power 2' if power == 2.0 else ''}: f32 rel "
+            f"{e:.3e} (tol 2e-05), shape {tuple(y_k.shape)}")
         require(torch.isfinite(y_k).all().item() and y_k.shape == y_p.shape, f"{A} {name}: bad output")
         require(e <= 2e-5, f"{A} {name} disagrees with plain")
         y_b = spectral.fused_melspec(x, n_fft, hop, out_dtype=torch.bfloat16, **kw)
@@ -1992,7 +2102,13 @@ def main() -> int:
         y_f = spectral.fused_melspec(x16.to(torch.float32) * 2.0 ** -15, n_fft, hop, **kw)
         require(torch.equal(y_i, y_f), f"{A} {name}: int16 input differs from pre-converted float")
         log(f"  {A} {name}: bf16 store bit-equal to rounding, int16 input bit-identical")
-        errs[A] = max(errs.get(A, 0.0), abs_err(y_k, y_p))
+        if taps is not None and contrast == "none":
+            # A's row reports the log-mel outputs' error, as it did while only
+            # those were checked: the unnormalised |X|^2 of a power spectrogram
+            # is on another scale, so its error is logged apart
+            log(f"  {A} {name}: abs {abs_err(y_k, y_p):.3e} (not in the row)")
+        else:
+            errs[A] = max(errs.get(A, 0.0), abs_err(y_k, y_p))
 
     def check_stats(name, x, n_fft, hop, wname, taps=None):
         """B or F against its plain version.  B (taps) takes the FFT route
@@ -2008,7 +2124,7 @@ def main() -> int:
         s_k = spectral.fused_melspec_stats(x, n_fft, hop, "log1p", taps=taps, window=window)
         s_p = spectral.fused_melspec_stats_reference(x, n_fft, hop, "log1p", taps=taps, window=window)
         if taps is not None:
-            fft = spectral._kernel_plan(n_fft, hop, taps, stats=True)[1] > 0
+            fft = spectral._kernel_plan(n_fft, hop, taps)[1] > 0
             route = "fft" if fft else "factored"
             require(spectral.routes[f"fused_melspec_stats:{route}"] == 1 and fft == ff.fft_covers(n_fft),
                     f"B {name}: not on the {route} route")
@@ -2087,13 +2203,6 @@ def main() -> int:
     mag_r = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=512)
     check_forward("ragged 512/128 blackman", rag, 512, 128, "blackman", mag_r.mel_bank, -0.2, 0.7)
     check_stats("ragged 512/128 blackman", rag, 512, 128, "blackman")
-    # B on the FFT route at every power of two it takes (hop n_fft / 4, at
-    # least the kernels' 32) under hann and blackman taps, and on the
-    # factored route at 768/192 (n_fft no power of two)
-    for n_fft in (64, 128, 256, 512, 1024, 2048, 4096):
-        for wname, taps_b in (("hann", (0.5, -0.25)), ("blackman", (0.42, -0.25, 0.04))):
-            check_stats(f"{n_fft}/{max(32, n_fft // 4)} {wname}", small, n_fft, max(32, n_fft // 4), wname, taps_b)
-    check_stats("768/192 hann", small, 768, 192, "hann")
     # O's polish at every power of two it takes, lookahead 0 and 4
     for n_fft in (64, 128, 256, 512, 1024, 2048, 4096):
         for la in (0, 4):
@@ -2112,8 +2221,7 @@ def main() -> int:
     # main shape's framing (no small window value, so the edge frames are
     # held to 1e-4 outright), overlap 8 (the widest halo, chains of 3),
     # overlap 2, a hop wider than one pass of the synthesis product (512 > 256
-    # sample columns; frame tile of 16 in A and B), and n_fft 4096 (frame tile
-    # of 8, chains of 3)
+    # sample columns), and n_fft 4096 (chains of 3)
     for n_fft, hop, wname in ((1024, 256, "hamming"), (1024, 128, "hamming"), (512, 256, "hann"),
                               (2048, 512, "hann"), (4096, 1024, "hann")):
         label = f"{n_fft}/{hop} {wname}"
@@ -2125,7 +2233,7 @@ def main() -> int:
         check_forward(label, small, n_fft, hop, wname, bank_s, 0.05, 1.3)
         check_stats(label, small, n_fft, hop, wname)
         chain = glstep.gl_max_chain(n_fft, hop, 3 if n_fft // hop == 8 else 4)
-        log(f"  {label}: frame tile {spectral._pick_tile(hop, n_fft // hop, n_fft // 2 + 1)} in A and B, "
+        log(f"  {label}: (frame tile, FFTs) {spectral._kernel_plan(n_fft, hop, taps_s)} in A and B, "
             f"chain of {chain} in D")
         require(chain >= 2, f"no chain fits shared memory at {label}")
         check_gl(label, att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop, taps_s, w_s, mom,
@@ -2313,17 +2421,40 @@ def main() -> int:
     # (1e-7 of the sum of |values|, extrema within 1e-6); and against its
     # plain version: channel 1
     # as B and F, channel 2 within the elementwise difference of the two
-    # versions' channels (a bin at the +-pi boundary may land on either side)
-    def check_repr_stats(name, x, n_fft, hop, wname, second, weighted=False):
-        _, taps, window = front_end(wname, n_fft)
-        key = "H" if taps is not None else ("H_fk" if ff.fft_covers(n_fft) else "H_fk_product")
+    # versions' channels (a bin at the +-pi boundary may land on either side).
+    # H with taps takes the FFT route wherever n_fft is a power of two from
+    # 64 to 4096 (H full-K's instance under the taps' own window: G's
+    # channels are then those of G full-K under that window, and the extrema
+    # are bit-identical to the plain version's), the factored front end
+    # elsewhere (row H_factored)
+    def check_repr_stats(name, x, n_fft, hop, wname, second, weighted=False, taps=None):
+        _, taps_w, window = front_end(wname, n_fft)
+        taps = taps_w if taps is None else taps
+        fft = spectral._repr_plan(n_fft, hop, taps, True, second, False)[1] > 0
+        if taps is not None:
+            key = "H" if fft else "H_factored"
+        else:
+            key = "H_fk" if fft else "H_fk_product"
         kw = dict(weighted=weighted, taps=taps, window=window)
+        spectral.reset_launches()
         s_k = spectral.fused_repr_stats(x, n_fft, hop, second, **kw)
+        route = "fused_repr_stats" + ("" if taps is not None else "_fullk") + (
+            ":fft" if fft else ":factored" if taps is not None else ":product")
+        require(spectral.routes[route] == 1 and fft == ff.fft_covers(n_fft), f"{key} {name}: not on {route}")
         s_p = spectral.fused_repr_stats_reference(x, n_fft, hop, second, **kw)
-        g_k = spectral.fused_spectral_repr(x, n_fft, hop, second, **kw)
-        g_p = spectral.fused_spectral_repr_reference(x, n_fft, hop, second, **kw)
+        kw_g = kw
+        if taps is not None and fft:
+            kw_g = dict(kw, taps=None, window=torch.as_tensor(ff.taps_window(tuple(taps), n_fft), device=dev))
+        g_k = spectral.fused_spectral_repr(x, n_fft, hop, second, **kw_g)
+        g_p = spectral.fused_spectral_repr_reference(x, n_fft, hop, second, **kw_g)
         torch.cuda.synchronize()
         require(s_k["count"] == s_p["count"] == g_k[0].numel(), f"{key} {name}: count differs")
+        if fft:
+            same = all(s_k[ch][k].item() == s_p[ch][k].item() for ch in ("ch1", "ch2") for k in ("min", "max"))
+            tile = spectral._repr_plan(n_fft, hop, taps, True, second, False)[0]
+            log(f"  {key} {name} {second} (FFT route, tile {tile}): extrema "
+                f"bit-identical to the plain version: {same}")
+            require(same, f"{key} {name}: the FFT route's extrema differ from the plain version's")
         worst = 0.0
         for i, ch in enumerate(("ch1", "ch2")):
             v, vp = g_k[i].double(), g_p[i].double()
@@ -2369,6 +2500,25 @@ def main() -> int:
         for wname in ("hann", "gaussian"):
             check_repr(f"{n_fft}/{hop}", rag, n_fft, hop, wname, "if", bank_s)
             check_repr_stats(f"{n_fft}/{hop}", rag, n_fft, hop, wname, "phase")
+
+    # A, B and H on the FFT route at every power of two they take (hop
+    # n_fft / 4, at least the kernels' 32) under hann, hamming and blackman
+    # taps (A with the flagship's bank, its bf16 store and int16 input, and
+    # the power spectrogram; H with each second), and on the factored route
+    # at 768/192 (n_fft no power of two).  The taps are given: the port reads
+    # no taps off a 64-point blackman window, whose chains run eager
+    for n_fft in (64, 128, 256, 512, 1024, 2048, 4096, 768):
+        hop_s = max(32, n_fft // 4)
+        bank_s = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=n_fft).mel_bank
+        for wname, taps_s in (("hann", (0.5, -0.25)), ("hamming", (0.54, -0.23)),
+                              ("blackman", (0.42, -0.25, 0.04))):
+            label = f"{n_fft}/{hop_s} {wname}"
+            check_forward(label, small, n_fft, hop_s, wname, bank_s, 0.05, 1.3, taps=taps_s)
+            check_stats(label, small, n_fft, hop_s, wname, taps_s)
+            for second in ("phase", "if", "imag"):
+                check_repr_stats(label, small, n_fft, hop_s, wname, second, weighted=second == "if", taps=taps_s)
+        check_forward(f"{n_fft}/{hop_s} hann", small, n_fft, hop_s, "hann", bank_s, 0.05, 1.3, power=2.0,
+                      contrast="none", taps=(0.5, -0.25))
 
     # G and H full-K by route.  The FFT route at every power of two it takes
     # (hop n_fft / 4; 1024/128 for overlap 8), Polar, weighted PolarIF and
@@ -2616,10 +2766,15 @@ def main() -> int:
         counts[k + ":product"] = 0      # the product route's launches: phase 4h
     log(f"  A and B by route: { {k: v for k, v in spectral.routes.items() if v} }")
     require(spectral.routes["fused_melspec_stats:fft"] == counts["fused_melspec_stats"]
-            and spectral.routes["fused_melspec:factored"] == counts["fused_melspec"],
-            "the main path's fit (B) must take the FFT route and its forward (A) the factored one")
-    counts["fused_melspec_stats:fft"] = spectral.routes["fused_melspec_stats:fft"]
-    counts["fused_melspec_stats:factored"] = 0      # the factored route's launches: phase 4h
+            and spectral.routes["fused_melspec:fft"] == counts["fused_melspec"],
+            "the main path's fit (B) and forward (A) must take the FFT route")
+    for k in ("fused_melspec_stats", "fused_melspec"):
+        counts[k + ":fft"] = spectral.routes[k + ":fft"]
+        counts[k + ":factored"] = 0      # the factored route's launches: phase 4h
+    sp_m = path_split(att, chain, audio)
+    log(f"  fit + forward, median of 5 runs: {sp_m['wall']:.2f} ms to the card's end; the host returns from the "
+        f"fit after {sp_m['fit']:.2f} ms, from building the forward after {sp_m['build']:.2f}, from calling it "
+        f"after {sp_m['forward']:.2f} (host {sp_m['fit'] + sp_m['build'] + sp_m['forward']:.2f} ms in all)")
     n_frames = 1 + L // HOP
     require(tuple(y.shape) == (B, n_frames, N_FFT // 2 + 1), f"log-mel shape {tuple(y.shape)}")
     require(torch.isfinite(y).all().item(), "log-mel not finite")
@@ -2857,7 +3012,16 @@ def main() -> int:
     log(f"  fit + forward {1e3 * (t1 - t0):.1f} ms; launches {p_counts}")
     require(p_counts["fused_repr_stats"] == 1 and p_counts["fused_spectral_repr"] == 1
             and sum(p_counts.values()) == 2, "STFT + Polar: expected one H and one G launch")
+    log(f"  H and G by route: { {k: v for k, v in spectral.routes.items() if v} }")
+    require(spectral.routes["fused_repr_stats:fft"] == 1 and spectral.routes["fused_spectral_repr:factored"] == 1,
+            "STFT + Polar: the fit (H) must take the FFT route and the forward (G) the factored one")
     counts.update({k: p_counts[k] for k in ("fused_repr_stats", "fused_spectral_repr")})
+    counts["fused_repr_stats:fft"] = spectral.routes["fused_repr_stats:fft"]
+    counts["fused_repr_stats:factored"] = 0      # the factored route's launches: phase 4h
+    sp_p = path_split(att, p_chain, audio)
+    log(f"  fit + forward, median of 5 runs: {sp_p['wall']:.2f} ms to the card's end; the host returns from the "
+        f"fit after {sp_p['fit']:.2f} ms, from building the forward after {sp_p['build']:.2f}, from calling it "
+        f"after {sp_p['forward']:.2f} (host {sp_p['fit'] + sp_p['build'] + sp_p['forward']:.2f} ms in all)")
     require(tuple(y_p.shape) == (B, n_frames, 2, N_FFT // 2 + 1) and torch.isfinite(y_p).all().item(),
             f"STFT + Polar output {tuple(y_p.shape)}")
     check_repr_chain("STFT + Polar", p_chain, p_fit, y_p, "phase", stft_t.window, 1e-4)
@@ -3031,15 +3195,38 @@ def main() -> int:
             a, tp = u / u.abs().clamp_min(1e-16), reb
         return a, tp
 
+    # A's factored route at 768/192 (n_fft no power of two) on the same
+    # clips, with the square bank of that size: phase 4h's launches
+    bank_g = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=n_fft_g).mel_bank
+    nnz_g = int((bank_g != 0).sum().item())
+    kw_ag = dict(kw, mel_bank=bank_g, taps=taps_g)
+
+    def lib_forward_g():
+        S = torch.stft(mono, n_fft_g, hop_g, window=w_g, center=True, pad_mode="reflect", return_complex=True)
+        return (torch.log1p(torch.matmul(S.abs().transpose(-2, -1), bank_g)) - off) / scl
+
+    factored_g = (4.0 * B * (Tg + ov_g - 1) * hop_g * Fg + 8.0 * el_g * ov_g
+                  + 4.0 * el_g * (2 * len(taps_g) - 1))        # the factored design's front end at 768/192
     specs = [
-        dict(key="A", name="fused_melspec", source="acids_transforms_tpu_torch/csrc/spectral.cu",
+        dict(key="A", name="fused_melspec", front_end="fft",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:732",
-             launches=counts["fused_melspec"],
+             launches=counts["fused_melspec:fft"],
              run=lambda: spectral.fused_melspec(mono, N_FFT, HOP, **kw),
              plain=lambda: spectral.fused_melspec_reference(mono, N_FFT, HOP, **kw),
              library=lib_forward,
              bound=bound_of(4.0 * B * L + 4.0 * B * Tn * F + 4.0 * F * F, fwd_flops),
-             ceiling=ceiling_of(chunk_flops + combine_flops + 3.0 * B * Tn * F + 2.0 * B * Tn * nnz)),
+             ceiling=ceiling_of(fft_design_flops(N_FFT, B * Tn) + 7.0 * B * Tn * F + 2.0 * B * Tn * nnz)),
+        dict(key="A_factored", name="fused_melspec_factored", front_end="factored",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:732",
+             launches=counts["fused_melspec:factored"],
+             run=lambda: spectral.fused_melspec(mono, n_fft_g, hop_g, **kw_ag),
+             plain=lambda: spectral.fused_melspec_reference(mono, n_fft_g, hop_g, **kw_ag),
+             library=lib_forward_g,
+             bound=bound_of(4.0 * B * L + 4.0 * el_g + 4.0 * Fg * Fg,
+                            fft_g + B * Tg * (n_fft_g + 7.0 * Fg + 2.0 * nnz_g)),
+             ceiling=ceiling_of(factored_g + 3.0 * el_g + 2.0 * B * Tg * nnz_g)),
         dict(key="B", name="fused_melspec_stats", front_end="fft",
              source="acids_transforms_tpu_torch/csrc/spectral.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:903",
@@ -3057,8 +3244,7 @@ def main() -> int:
              plain=lambda: spectral.fused_melspec_stats_reference(mono, n_fft_g, hop_g, "log1p", taps=taps_g),
              library=lib_stats_g,
              bound=bound_of(4.0 * B * L, fft_g + B * Tg * (n_fft_g + 9.0 * Fg)),
-             ceiling=ceiling_of(4.0 * B * (Tg + ov_g - 1) * hop_g * Fg + 8.0 * el_g * ov_g
-                                + 4.0 * el_g * (2 * len(taps_g) - 1) + 8.0 * el_g)),
+             ceiling=ceiling_of(factored_g + 8.0 * el_g)),
         dict(key="C", name="gl_momentum_step", front_end="fft",
              source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:294",
@@ -3288,14 +3474,30 @@ def main() -> int:
 
     # G and H full-K on the FFT route: per block of tile_t frames, frames_rfft
     # of the tile and the IF's two halo frames (fft_design_flops), then the
-    # epilogue per bin; H writes (n_blocks, 8, F) partials that a second
-    # kernel reads back (not the function's bytes: reported beside the row).
-    # Their product rows at 768/256 on the same clips (phase 4h's launches).
+    # epilogue per bin; H writes (n_blocks, 8, F) partials, a block a tile,
+    # that a second kernel reads back (not the function's bytes: their
+    # traffic at the peak rate is modelled and printed in the log line, kept
+    # out of the row).  H with taps takes the same route (Polar: no halo).
+    # Their product rows at 768/256 on the same clips (phase 4h's launches),
+    # H's factored row at 768/192.
     g_tile, _ = spectral._repr_plan(N_FFT, HOP, None, False, "if", True)
-    h_tile, _ = spectral._repr_plan(N_FFT, HOP, None, True, "if", False)
     g_frames = B * -(-Tn // g_tile) * (g_tile + 2)
-    h_blocks = B * -(-Tn // h_tile)
-    h_partials_ms = 1e3 * 2.0 * 4 * h_blocks * 8 * F / PEAK_BYTES_PER_S
+
+    def h_blocks_of(second):
+        """(tile_t, blocks) of H's FFT route at the main shape."""
+        tile, _ = spectral._repr_plan(N_FFT, HOP, None, True, second, False)
+        return tile, B * -(-Tn // tile)
+
+    def partials_ms(blocks):
+        """The partials' traffic (written, then read back) at the peak rate: a model."""
+        return 1e3 * 2.0 * 4 * blocks * 8 * F / PEAK_BYTES_PER_S
+
+    h_tile, h_blocks = h_blocks_of("if")
+    _, hp_blocks = h_blocks_of("phase")
+
+    def lib_stats_polar_g():
+        return lib_repr_stats(torch.stft(mono, n_fft_g, hop_g, window=w_g, center=True, pad_mode="reflect",
+                                         return_complex=True).transpose(-2, -1), "phase")
     bank_rp = T.Magnitude(mode="bipolar", n_fft=n_fft_p).mel_bank
     nnz_rp = int((bank_rp != 0).sum().item())
     kw_gkp = dict(kw_gk, mel_bank=bank_rp, window=w_p)
@@ -3391,13 +3593,21 @@ def main() -> int:
              plain=lambda: spectral.fused_spectral_repr_reference(mono, n_fft_p, hop_p, "if", **kw_gkp),
              library=lib_polarif_p, bound=bound_of(4.0 * B * L + 8.0 * el_p, gif_need_p),
              ceiling=ceiling_of(fullk_p * (Tp + 1) / Tp + 2.0 * B * Tp * nnz_rp + 38.0 * el_p)),
-        dict(key="H", name="fused_repr_stats", source=spectral_src,
-             replaces="acids_transforms_tpu/ops/pallas/spectral.py:938",
-             launches=counts["fused_repr_stats"],
+        dict(key="H", name="fused_repr_stats", source=spectral_src + " (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:938", front_end="fft",
+             launches=counts["fused_repr_stats:fft"],
              run=lambda: spectral.fused_repr_stats(mono, N_FFT, HOP, "phase", taps=taps_main),
              plain=lambda: spectral.fused_repr_stats_reference(mono, N_FFT, HOP, "phase", taps=taps_main),
              library=lib_stats_polar, bound=bound_of(4.0 * B * L, h_need),
-             ceiling=ceiling_of(chunk_flops + combine_flops + 36.0 * n_el)),
+             ceiling=ceiling_of(fft_design_flops(N_FFT, B * Tn) + 36.0 * n_el),
+             extra=dict(modelled_partials_bytes_ms=partials_ms(hp_blocks), blocks=hp_blocks)),
+        dict(key="H_factored", name="fused_repr_stats_factored", source=spectral_src,
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:938", front_end="factored",
+             launches=counts["fused_repr_stats:factored"],
+             run=lambda: spectral.fused_repr_stats(mono, n_fft_g, hop_g, "phase", taps=taps_g),
+             plain=lambda: spectral.fused_repr_stats_reference(mono, n_fft_g, hop_g, "phase", taps=taps_g),
+             library=lib_stats_polar_g, bound=bound_of(4.0 * B * L, fft_g + B * Tg * (n_fft_g + 41.0 * Fg)),
+             ceiling=ceiling_of(factored_g + 36.0 * el_g)),
         dict(key="H_fk", name="fused_repr_stats_fullk", source=spectral_src + " (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:916", front_end="fft",
              launches=counts["fused_repr_stats_fullk:fft"],
@@ -3406,7 +3616,7 @@ def main() -> int:
                                                                window=dgt_f.window),
              library=lib_stats_polarif, bound=bound_of(4.0 * B * L, hif_need),
              ceiling=ceiling_of(fft_design_flops(N_FFT, h_blocks * (h_tile + 2)) + 44.0 * n_el),
-             extra=dict(partials_bytes_ms=h_partials_ms)),
+             extra=dict(modelled_partials_bytes_ms=partials_ms(h_blocks), blocks=h_blocks)),
         dict(key="H_fk_product", name="fused_repr_stats_fullk_product", source=spectral_src,
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:916", front_end="product",
              launches=counts["fused_repr_stats_fullk:product"],
@@ -3860,12 +4070,12 @@ def main() -> int:
                    library_single_call_ms=l_single)
         if "front_end" in s:
             row["front_end"] = s["front_end"]
-        row.update(s.get("extra", {}))
         kernels.append(row)
         front = f" [{s['front_end']} route]" if "front_end" in s else ""
         ratio = "" if l_ms is None else f", {k_ms / l_ms:.2f}x the library"
         single = f"; one call alone {k_single:.3f} ms" + (
             "" if l_single is None else f", the library's {l_single:.3f} ms")
+        # figures from the plan or a model, not measured: the log line only
         extra = "".join(f"; {k} {v:.3f}" for k, v in s.get("extra", {}).items())
         log(f"  {s['key']} {s['name']}{front}: {k_ms:.3f} ms, plain {row['plain_ms']:.3f} ms, "
             f"library {'none' if l_ms is None else format(l_ms, '.3f') + ' ms'}{ratio}, bound {b_ms:.3f} ms by "

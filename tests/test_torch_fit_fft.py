@@ -3,10 +3,11 @@ taps of a cosine-sum window) on the shared-memory FFT: where ``n_fft`` is a
 power of two from 64 to 4096, B takes F's instance
 (``csrc/spectral.cu:melspec_stats_kernel<., kFrontFft>``) under the taps'
 own window (``frames_fft.taps_window``, float64 rounded once); every other
-``n_fft`` keeps the factored front end.  The forward with taps (A) stays
-factored: the rule is per launch kind (``spectral._kernel_plan``).  The
-plain version follows the same rule, so on a CPU tensor the route and its
-plain version agree; ``chip_smoke.py`` holds the kernel to it on the card.
+``n_fft`` keeps the factored front end.  The forward with taps (A) takes
+E's instance by the same rule (``spectral._kernel_plan``;
+``tests/test_torch_front_fft.py``).  The plain version follows the same
+rule, so on a CPU tensor the route and its plain version agree;
+``chip_smoke.py`` holds the kernel to it on the card.
 
 Tolerances, and why:
 
@@ -75,11 +76,11 @@ def test_fft_route_no_further_from_the_oracle_than_the_factored_route(n_fft, hop
     x = make_audio(50, batch=2, n=9000)[:, 0]
     v = oracle(x, taps, n_fft, hop)
 
-    def err(stats):
-        re, im = pk._spectrum(torch.as_tensor(x), n_fft, hop, True, taps, None, stats=stats)
+    def err(factored):
+        re, im = pk._spectrum(torch.as_tensor(x), n_fft, hop, True, taps, None, factored=factored)
         return np.abs(t2n(torch.log1p(torch.sqrt(re * re + im * im))).astype(np.float64) - v).max()
 
-    assert err(True) <= err(False)
+    assert err(False) <= err(True)
 
 
 def test_fit_through_the_fft_route_matches_the_eager_cascade():
@@ -96,27 +97,25 @@ def test_fit_through_the_fft_route_matches_the_eager_cascade():
 
 def test_route_rule_per_launch_kind():
     """With taps the statistics take the FFT route wherever ``fft_covers``,
-    with F's plan; the forward stays factored; 768/192 (no power of two)
-    stays factored for both, as its plain version does; no launch is counted
-    on the CPU."""
+    with F's plan, and so does the forward (A), with E's; 768/192 (no power
+    of two) stays factored for both, as its plain version does; no launch is
+    counted on the CPU."""
     taps = TAPS["hann"]
     for n_fft in (64, 128, 256, 512, 1024, 2048, 4096):
         hop = max(32, n_fft // 4)
-        assert pk._kernel_plan(n_fft, hop, taps, stats=True) == pk._kernel_plan(n_fft, hop, None, stats=True)
-        assert pk._kernel_plan(n_fft, hop, taps, stats=True)[1] > 0
-        assert pk._kernel_plan(n_fft, hop, taps)[1] == 0
+        assert pk._kernel_plan(n_fft, hop, taps) == pk._kernel_plan(n_fft, hop, None)
+        assert pk._kernel_plan(n_fft, hop, taps)[1] > 0
         assert pk._kernel_plan(n_fft, hop, None)[1] > 0
-    assert pk._kernel_plan(1024, 256, taps, stats=True) == (16, 4)
-    assert pk._kernel_plan(768, 192, taps, stats=True) == pk._kernel_plan(768, 192, taps) == (
-        pk._pick_tile(192, 4, 385), 0)
+    assert pk._kernel_plan(1024, 256, taps) == (16, 4)
+    assert pk._kernel_plan(768, 192, taps) == (pk._pick_tile(192, 4, 385), 0)
     x = torch.as_tensor(make_audio(45, batch=2, n=6000)[:, 0])
     pk.reset_launches()
     fft = pk.fused_melspec_stats_reference(x, 512, 128, "log1p", taps=taps)
     w = torch.as_tensor(taps_window(taps, 512))
-    re, im = pk._spectrum(x, 512, 128, True, taps, None, stats=True)
+    re, im = pk._spectrum(x, 512, 128, True, taps, None)
     re_w, im_w = pk._fullk_spectrum(x, 512, 128, True, w)
     assert torch.equal(re, re_w) and torch.equal(im, im_w)
-    fac = pk._spectrum(x, 512, 128, True, taps, None)
+    fac = pk._spectrum(x, 512, 128, True, taps, None, factored=True)
     assert torch.equal(fac[0], pk._factored_spectrum(x, 512, 128, True, taps)[0])
     assert not torch.equal(fac[0], re)
     # 768/192: the factored statistics
@@ -125,4 +124,5 @@ def test_route_rule_per_launch_kind():
     v = torch.log1p(torch.sqrt(re * re + im * im)).double()
     assert torch.equal(st["sum"], v.sum()) and float(fft["sum"]) > 0
     assert not any(pk.launches.values()) and not any(pk.routes.values())
-    assert {"fused_melspec_stats:fft", "fused_melspec_stats:factored", "fused_melspec:factored"} <= set(pk.routes)
+    assert {"fused_melspec_stats:fft", "fused_melspec_stats:factored", "fused_melspec:fft",
+            "fused_melspec:factored"} <= set(pk.routes)

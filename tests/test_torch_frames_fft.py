@@ -164,9 +164,13 @@ def test_route_rule_and_coverage():
                 assert SP._fft_smem_bytes(tile_t, hop, n_fft // hop, F, teams) <= SP.MAX_SMEM
             else:
                 assert tile_t == SP._pick_tile(hop, n_fft // hop, F)
-        # the factored front end (taps) never takes the FFT route
+        # with taps (A and B) the FFT route where fft_covers, E's and F's plan;
+        # the factored front end and its tile elsewhere
         if SP.fused_melspec_available(n_fft, hop, (0.5, -0.25)) and SP._pick_tile(hop, n_fft // hop, F):
-            assert SP._kernel_plan(n_fft, hop, (0.5, -0.25))[1] == 0
+            if fft_covers(n_fft):
+                assert SP._kernel_plan(n_fft, hop, (0.5, -0.25)) == SP._kernel_plan(n_fft, hop, None)
+            else:
+                assert SP._kernel_plan(n_fft, hop, (0.5, -0.25)) == (SP._pick_tile(hop, n_fft // hop, F), 0)
     # the named shapes, and the main shape
     assert PK._encode_plan(1024, 256) == (32, 4) and SP._kernel_plan(1024, 256, None) == (16, 4)
     assert PK._encode_plan(1200, 300)[1] == 0 and PK._encode_plan(960, 240)[1] == 0
@@ -192,6 +196,7 @@ def test_no_route_counted_on_the_cpu():
                               "fused_melspec_stats_fullk:fft", "fused_melspec_stats_fullk:product",
                               "fused_spectral_repr_fullk:fft", "fused_spectral_repr_fullk:product",
                               "fused_repr_stats_fullk:fft", "fused_repr_stats_fullk:product",
-                              "fused_melspec:factored", "fused_melspec_stats:fft", "fused_melspec_stats:factored",
-                              "fused_spectral_repr:factored", "fused_repr_stats:factored"}
+                              "fused_melspec:fft", "fused_melspec:factored",
+                              "fused_melspec_stats:fft", "fused_melspec_stats:factored",
+                              "fused_spectral_repr:factored", "fused_repr_stats:fft", "fused_repr_stats:factored"}
 

@@ -33,6 +33,7 @@ from acids_transforms_tpu.ops.pallas import spectral as jk
 from acids_transforms_tpu.ops.windows import gaussian_dgt_window as jgauss
 from acids_transforms_tpu.ops.windows import get_window as jwin
 from acids_transforms_tpu_torch.ops.cuda import spectral as pk
+from acids_transforms_tpu_torch.ops.cuda.frames_fft import fft_covers, taps_window
 from test_torch_common import HOP, N_FFT, make_audio, t2n
 
 AFF = (0.1, 1.3, -0.2, 0.9)
@@ -139,12 +140,17 @@ def test_plain_h_vs_pallas_kernel(audio, second, wname):
     sp = pk.fused_repr_stats(torch.as_tensor(audio), N_FFT, HOP, second, taps=taps,
                              window=torch.as_tensor(w), **kw)
     assert sp["count"] == sj["count"] and isinstance(sp["count"], int)
-    # the channels the statistics are taken on (channel 1 without mel)
+    # the channels the statistics are taken on (channel 1 without mel); with
+    # taps at a power of two H takes the FFT route under the taps' own window,
+    # whose channels are the full-K ones under that window
     aff0 = dict(aff=(0.0, 1.0, 0.0, 1.0), taps=taps, **kw)
     jy = [np.asarray(a, np.float64) for a in jk.fused_spectral_repr(
         jnp.asarray(audio), N_FFT, HOP, jnp.asarray(w), second, interpret=True, **aff0)]
+    pw = torch.as_tensor(w)
+    if taps is not None and fft_covers(N_FFT):
+        aff0["taps"], pw = None, torch.as_tensor(taps_window(taps, N_FFT))
     py = [a.double() for a in pk.fused_spectral_repr(
-        torch.as_tensor(audio), N_FFT, HOP, second, window=torch.as_tensor(w), **aff0)]
+        torch.as_tensor(audio), N_FFT, HOP, second, window=pw, **aff0)]
     n = sp["count"]
     for ch, pv, jv in (("ch1", py[0], jy[0]), ("ch2", py[1], jy[1])):
         # the plain statistics are those of the plain channels (the same

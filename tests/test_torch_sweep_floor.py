@@ -120,10 +120,27 @@ def test_wrapper_on_a_cpu_tensor_runs_the_plain_version(case):
         y = pk.melspec_forward_stage(case["rows"], stage, *case["args"])
         assert torch.equal(y, case["stages"][stage])
     assert pk.launches == before
-    # s7 is A: the plain stage equals A's plain version on the same audio
-    a = pk.fused_melspec(torch.as_tensor(case["x"]), case["n_fft"], case["hop"], case["bank"], OFFSET,
-                         SCALE, "log1p", taps=case["taps"])
+    # s7 is A on the factored front end: the plain stage equals A's plain
+    # version on that front end, on the same audio (the public call takes the
+    # FFT route at these powers of two; test_s7_is_the_public_call_where_a_is_factored)
+    re, im = pk._factored_spectrum(torch.as_tensor(case["x"]), case["n_fft"], case["hop"], True, case["taps"])
+    a = pk._melspec_epilogue(re, im, case["bank"], OFFSET, SCALE, "log1p", 1.0, torch.float32)
     assert torch.equal(case["stages"]["s7_full"], a)
+
+
+def test_s7_is_the_public_call_where_a_is_factored():
+    """At 768/192 (n_fft no power of two) A keeps the factored front end: the
+    plain ``s7_full`` is the public call, bit for bit, as ``chip_smoke.py``
+    holds kernel T against A there."""
+    n_fft, hop = 768, 192
+    x = torch.as_tensor(make_audio(24, batch=2, n=SR // 4, channels=1)[:, 0])
+    taps = taps_for_window(get_window("hann", n_fft))
+    bank = torch.as_tensor(square_mel_banks(n_fft, SR)[0])
+    assert pk._kernel_plan(n_fft, hop, taps)[1] == 0
+    rows, n_frames, _ = pk._prepare_rows(x, n_fft, hop, True, pk._kernel_tile(n_fft, hop, taps))
+    s7 = pk.melspec_forward_stage(rows, "s7_full", n_fft, hop, n_frames, taps, bank, OFFSET, SCALE)
+    a = pk.fused_melspec(x, n_fft, hop, bank, OFFSET, SCALE, "log1p", taps=taps)
+    assert torch.equal(s7, a)
 
 
 def test_wrapper_refuses_what_kernel_t_does_not_take(case):
