@@ -11,8 +11,9 @@
 // pghi_invert_fused is the first followed by the second.  And from
 // ops/pallas/stream_step.py:
 //   rt_pghi_phases_kernel   <- _rt_pghi_phases, the recurrence of the streaming
-//                              sessions _session_pghi_kernel (N) and
-//                              _session_pghi_invert_kernel (Q); their analysis and
+//                              sessions _session_pghi_kernel (N),
+//                              _session_pghi_invert_kernel (Q) and the seed of
+//                              _session_pghi_gl_kernel (O); their analysis and
 //                              synthesis are kernels of stream_step.cu
 //
 // What bounds them on this card.  The recurrence is bound by latency, not by
@@ -52,19 +53,46 @@
 // first repeats chain 0's seed step (frame mid with its true neighbours), so
 // its carry is the seed phase without any exchange between blocks.
 //
-// Streaming (RT-PGHI): the same fill per frame with the causal time stencil
-// (3 Y[t] - 4 Y[t-1] + Y[t-2]) / 2 and, per chunk of T_c frames, the chunk's
-// own threshold tol * max over its (T_c, F) magnitudes.  One block walks one
-// session's chunks in order; the previous frames' magnitudes, logarithms and
-// time steps stay in registers across the chunk boundary (the carried
-// mag_buffer of the chunked loop), and the phase carry is re-wrapped there as
+// Streaming (RT-PGHI, rt_pghi_phases_kernel): the same fill per frame with
+// the causal time stencil (3 Y[t] - 4 Y[t-1] + Y[t-2]) / 2 and, per chunk of
+// T_c frames, the chunk's own threshold tol * max over its (T_c, F)
+// magnitudes; the phase carry is re-wrapped at each chunk boundary as
 // atan2(m sin phi, m cos phi) of the last frame, which is what the chunked
 // loop carries (angle of the committed spectrum): the phases then stay within
-// one chunk's growth (16 frames x 2 pi hop k / n_fft), where a float32 ulp is
-// small, instead of growing over the whole session.  Seeded, the kernel
-// starts from a carried history instead of two zero frames: the pghi_gl
-// sessions (stream_step.cu) run it one chunk at a time, since each chunk's
-// seed starts from the previous chunk's polished phases.
+// one chunk's growth (16 frames x 2 pi hop k / n_fft) instead of growing over
+// the whole session.  Seeded, the kernel starts from a carried history
+// instead of two zero frames: the pghi_gl sessions (stream_step.cu) run it
+// one chunk at a time, since each chunk's seed starts from the previous
+// chunk's polished phases.
+//
+// Almost nothing in a frame's fill needs the previous frame's phases: the
+// threshold, the logarithms, the gradients, the anchors and the onset rule,
+// the distances to the nearest anchor on each side and the tie rule, and the
+// segment sums of the frequency steps from an anchor come from magnitudes
+// alone.  So the fill is split, and one block walks one session with two
+// kinds of warps.  Producer warps plan a stage of frames (up to 16, within a
+// chunk) at a time, all together: the next chunk's threshold a stage ahead
+// (which also brings it into L2), the stage's angles by cp.async into a
+// stage buffer, the logarithms and the bins' flags, ct and the frequency
+// derivatives, each lanes on consecutive bins; then a frame a warp
+// (rt_plan_frame) two segmented scans over 128-bin tiles (4 bins a lane,
+// Kogge-Stone over the lanes, the tiles' carry; a head restarts the sum)
+// give every bin its source (itself at an anchor, the nearest anchor below
+// or above, or none) and the segment sum from it (or the constant: 0 in a
+// frame without an anchor, the angle of a silent bin).  The chain warps walk
+// the frames: phi_t[k] = (phi_{t-1}[src] + ct[src]) + seg[k], one gather
+// from a shared-memory phase row, two adds and a store, and one barrier of
+// the chain's warps a frame; they read nothing from device memory.  Two
+// stage buffers (they fit with one frame up to 4096 bins) let the producers
+// plan stage s + 1 while the chain walks stage s.  Measured on the
+// card at 64 sessions x 688 frames x 513 bins (chip_smoke.py phase 5): the
+// chain is hidden behind the producers, which bound the kernel; one buffer
+// (no overlap) and stages of 8 are slower, and a seeded 22-frame chunk is
+// faster as two stages of 11 than as one of 22 (PERF.md section 6).  The
+// segment sums are local (no cancellation between numbers of the phases'
+// size), added to the anchor's phi + ct once; the plain version
+// (ops/cuda/stream_step.py: rt_fill_plan, rt_pghi_phases_reference) repeats
+// the order of every float32 operation.
 //
 // Synthesis, FFT route (pghi_synthesize_fft_kernel): a block owns R output
 // chunks of one clip (R a multiple of 2 overlap) and runs fft_smem.cuh:
@@ -373,213 +401,538 @@ struct RtPghiArgs {
     float fmul;           // gamma / (hop n_fft)
     float inv_fmul;       // 1 / fmul
     float carrier;        // 2 pi hop / n_fft
+    int S, P, C;          // frames a stage, producer and chain warps
 };
 
-// Shared memory: 3 rows of n_pad floats (the current frame's logarithm,
-// magnitude and frequency step), the warps' frame maxima and chunk maxima (2 x
-// 32 floats), the scans' totals (2 x 32 Affine).
-__host__ __device__ inline size_t rt_pghi_smem_bytes(int n_pad) {
-    return sizeof(float) * (3 * (size_t)n_pad + 64) + 2 * 32 * sizeof(Affine);
+constexpr int kRtE = 4;               // bins a lane owns in a tile of the fill's scans
+constexpr int kRtTile = 32 * kRtE;    // bins one warp's scan covers at a time
+constexpr int kRtWarps = 24;          // warps of the block, at most
+constexpr int kRtStage = 16;          // frames a stage, at most (each has an anchor flag word)
+constexpr int kRtBufs = 2;            // stage buffers
+constexpr int kRtNone = 8192;         // "no anchor on this side" (more than any distance)
+constexpr int kRtBatch = 8;           // bins a chain thread takes at once
+constexpr short kRtSig = 1, kRtAnchor = 2;  // a bin's flags in the source row while it is planned
+// named barriers (0 is __syncthreads, which this kernel does not use)
+constexpr int kBarProd = 1, kBarChain = 2, kBarFull = 3, kBarFree = 5;
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+    asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
-template <int kBPT>
-__global__ void __launch_bounds__(1024) rt_pghi_phases_kernel(RtPghiArgs p) {
+__host__ __device__ inline int rt_row(int F) { return (F + 3) & ~3; }
+
+// Shared memory, in rows of F rounded up to 4 (so that every row starts
+// 16-byte aligned, 8 for the int16 rows): the producers' logarithms of a
+// stage's frames and the two before it (S + 2 rows; the first S then hold the
+// frequency derivatives, then the steps up), the chain's two phase rows, 64
+// words of chunk maxima and anchor flags; then kRtBufs stage buffers, each S
+// float segment-sum rows (the angles on arrival), S float ct rows and the
+// magnitudes of the frame before the stage (the chunk boundary's re-wrap),
+// and (after all the float rows) S int16 source rows a buffer (the bins'
+// flags while the stage is planned).
+__host__ __device__ inline size_t rt_pghi_smem_bytes(int F, int S) {
+    const size_t row = (size_t)rt_row(F);
+    return sizeof(float) * ((size_t)(S + 4) * row + 64) +
+           (size_t)kRtBufs * row * ((size_t)S * (2 * sizeof(float) + sizeof(short)) + sizeof(float));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;" ::: "memory"); }
+
+// A segmented sum over a span of bins: f, the span holds an anchor (a head);
+// b, the sum of the steps since the last one.
+struct SegSum {
+    int f;
+    float b;
+};
+
+// Apply `l` (earlier) then `r`: a head in `r` restarts the sum.
+__device__ __forceinline__ SegSum seg_compose(const SegSum& l, const SegSum& r) {
+    SegSum o;
+    o.f = l.f | r.f;
+    o.b = r.f ? r.b : __fadd_rn(l.b, r.b);
+    return o;
+}
+
+// Value of lane `lane - delta` (kUp) or `lane + delta`, an empty span outside the warp.
+template <bool kUp>
+__device__ __forceinline__ SegSum seg_shift(const SegSum& x, int delta, int lane) {
+    SegSum o;
+    if (kUp) {
+        o.f = __shfl_up_sync(0xffffffffu, x.f, delta);
+        o.b = __shfl_up_sync(0xffffffffu, x.b, delta);
+        if (lane < delta) o = SegSum{0, 0.0f};
+    } else {
+        o.f = __shfl_down_sync(0xffffffffu, x.f, delta);
+        o.b = __shfl_down_sync(0xffffffffu, x.b, delta);
+        if (lane + delta > 31) o = SegSum{0, 0.0f};
+    }
+    return o;
+}
+
+// Inclusive Kogge-Stone over the lanes, towards higher (kUp) or lower lanes.
+template <bool kUp>
+__device__ __forceinline__ SegSum seg_warp_scan(SegSum x, int lane) {
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) x = seg_compose(seg_shift<kUp>(x, s, lane), x);
+    return x;
+}
+
+__device__ __forceinline__ SegSum seg_lane(const SegSum& x, int src) {
+    return SegSum{__shfl_sync(0xffffffffu, x.f, src), __shfl_sync(0xffffffffu, x.b, src)};
+}
+
+__device__ __forceinline__ void load4(const float* p, float (&v)[kRtE]) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+
+// The frequency derivative of the phase at a bin, from the logarithms of its
+// frame and the two before (the causal time stencil).
+__device__ __forceinline__ float rt_fs(const RtPghiArgs& p, float yc, float y1, float y2) {
+    const float dydt = __fmul_rn(__fadd_rn(__fsub_rn(__fmul_rn(3.0f, yc), __fmul_rn(4.0f, y1)), y2), 0.5f);
+    return __fadd_rn(__fmul_rn(-p.fmul, dydt), kPiF);
+}
+
+// The time step at bin k from its neighbours' logarithms (ylo at k - 1, yhi
+// at k + 1, clamped at the ends by the caller).
+__device__ __forceinline__ float rt_ts(const RtPghiArgs& p, float ylo, float yhi, int k) {
+    return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(yhi, ylo), 0.5f), p.inv_fmul),
+                     __fmul_rn(p.carrier, (float)k));
+}
+
+// One frame's plan, by one producer warp (rt_fill_plan in the plain version,
+// ops/cuda/stream_step.py), from the stage's shared rows.  On entry fs_r
+// holds the frame's frequency derivatives, src_r its bins' flags (sig |
+// anchor << 1, by the peak rule), seg_r its angles; `any` says whether the
+// peak rule found an anchor.  Writes the source bin (src_r) and the segment
+// sum, or the constant, of every bin (seg_r).
+//   A. without an anchor, the onset rule: every audible bin equal to the
+//      frame maximum (mrow, the frame's magnitudes in device memory);
+// then over the frame's 128-bin tiles, lane `lane` holding bins 128 i + 4
+// lane .. + 3 (its neighbours' values through shuffles and the carries):
+//   C. tiles upward: the step up (fs of the bin and the one below, into
+//      fs_r), the segment sum from the nearest anchor below (into seg_r at
+//      the audible bins; a silent bin keeps its angle) and that anchor's bin
+//      (packed into src_r with the flags);
+//   D. tiles downward: the step down (minus the next bin's step up), the
+//      segment sum from above, the source by the distance rule (a tie takes
+//      the anchor below), the constant of a silent bin or of a frame without
+//      an anchor.
+__device__ __forceinline__ void rt_plan_frame(const float* mrow, int any, float* fs_r, int F, short* src_r,
+                                              float* seg_r, int lane) {
+    const int nt = (F + kRtTile - 1) / kRtTile;
+    const int row = rt_row(F);
+
+    // A.
+    if (!any) {
+        float fmax = -1.0f;
+        for (int k = lane; k < F; k += 32) fmax = fmaxf(fmax, __ldg(mrow + k));
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) fmax = fmaxf(fmax, __shfl_xor_sync(0xffffffffu, fmax, o));
+        for (int k = lane; k < F; k += 32) {
+            const bool an = (src_r[k] & kRtSig) && __ldg(mrow + k) == fmax;
+            any |= an ? 1 : 0;
+            if (an) src_r[k] = kRtSig | kRtAnchor;
+        }
+        any = __any_sync(0xffffffffu, any);
+        __syncwarp();
+    }
+
+    // C.
+    SegSum carry{0, 0.0f};
+    int cbelow = -1;
+    float fs_left = 0.0f;  // fs of the last bin of the tile below
+    for (int i = 0; i < nt; ++i) {
+        const int k0 = i * kRtTile + kRtE * lane;
+        const bool act = k0 < row;
+        float fs[kRtE] = {0.0f, 0.0f, 0.0f, 0.0f}, an4[kRtE] = {0.0f, 0.0f, 0.0f, 0.0f};
+        short fl[kRtE] = {0, 0, 0, 0};
+        if (act) {
+            load4(fs_r + k0, fs);
+            load4(seg_r + k0, an4);
+            const short4 w = *reinterpret_cast<const short4*>(src_r + k0);
+            fl[0] = w.x; fl[1] = w.y; fl[2] = w.z; fl[3] = w.w;
+        }
+        float below_fs = __shfl_up_sync(0xffffffffu, fs[kRtE - 1], 1);
+        if (lane == 0) below_fs = fs_left;
+        SegSum own[kRtE];
+        float sup[kRtE];
+        int bl[kRtE];
+#pragma unroll
+        for (int e = 0; e < kRtE; ++e) {
+            const int k = k0 + e;
+            const int an = (k < F && (fl[e] & kRtAnchor)) ? 1 : 0;
+            const float fprev = e == 0 ? below_fs : fs[e - 1];
+            sup[e] = (k == 0 || k >= F) ? 0.0f : __fmul_rn(__fadd_rn(fs[e], fprev), 0.5f);
+            const SegSum x{an, an ? 0.0f : sup[e]};
+            own[e] = e == 0 ? x : seg_compose(own[e - 1], x);
+            bl[e] = an ? k : (e == 0 ? -1 : bl[e - 1]);
+        }
+        const SegSum incl = seg_warp_scan<true>(own[kRtE - 1], lane);
+        const SegSum before = seg_compose(carry, seg_shift<true>(incl, 1, lane));
+        int lmax = bl[kRtE - 1];
+#pragma unroll
+        for (int s = 1; s < 32; s <<= 1) {
+            const int o = __shfl_up_sync(0xffffffffu, lmax, s);
+            if (lane >= s) lmax = max(lmax, o);
+        }
+        int lex = __shfl_up_sync(0xffffffffu, lmax, 1);
+        if (lane == 0) lex = -1;
+        const int bfrom = max(cbelow, lex);
+        if (act) {
+            float su[kRtE];
+            short w[kRtE];
+#pragma unroll
+            for (int e = 0; e < kRtE; ++e) {
+                su[e] = (fl[e] & kRtSig) ? seg_compose(before, own[e]).b : an4[e];
+                w[e] = (short)(fl[e] | ((max(bfrom, bl[e]) + 1) << 2));
+            }
+            *reinterpret_cast<float4*>(fs_r + k0) = make_float4(sup[0], sup[1], sup[2], sup[3]);
+            *reinterpret_cast<float4*>(seg_r + k0) = make_float4(su[0], su[1], su[2], su[3]);
+            *reinterpret_cast<short4*>(src_r + k0) = make_short4(w[0], w[1], w[2], w[3]);
+        }
+        carry = seg_compose(carry, seg_lane(incl, 31));
+        cbelow = max(cbelow, __shfl_sync(0xffffffffu, lmax, 31));
+        fs_left = __shfl_sync(0xffffffffu, fs[kRtE - 1], 31);
+    }
+
+    // D.
+    carry = SegSum{0, 0.0f};
+    int cabove = kRtNone;
+    float sup_right = 0.0f;  // the step up of bin 0 of the tile above
+    for (int i = nt - 1; i >= 0; --i) {
+        const int k0 = i * kRtTile + kRtE * lane;
+        const bool act = k0 < row;
+        float sup[kRtE] = {0.0f, 0.0f, 0.0f, 0.0f}, sv[kRtE] = {0.0f, 0.0f, 0.0f, 0.0f};
+        short w[kRtE] = {0, 0, 0, 0};
+        if (act) {
+            load4(fs_r + k0, sup);
+            load4(seg_r + k0, sv);
+            const short4 q = *reinterpret_cast<const short4*>(src_r + k0);
+            w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
+        }
+        float sup_up = __shfl_down_sync(0xffffffffu, sup[0], 1);
+        if (lane == 31) sup_up = sup_right;
+        SegSum own[kRtE];
+        int ab[kRtE];
+#pragma unroll
+        for (int e = kRtE - 1; e >= 0; --e) {
+            const int k = k0 + e;
+            const int an = (k < F && (w[e] & kRtAnchor)) ? 1 : 0;
+            const float nb = e < kRtE - 1 ? sup[e + 1] : sup_up;
+            const float sdn = k < F - 1 ? -nb : 0.0f;
+            const SegSum x{an, an ? 0.0f : sdn};
+            own[e] = e == kRtE - 1 ? x : seg_compose(own[e + 1], x);
+            ab[e] = an ? k : (e == kRtE - 1 ? kRtNone : ab[e + 1]);
+        }
+        const SegSum incl = seg_warp_scan<false>(own[0], lane);
+        const SegSum before = seg_compose(carry, seg_shift<false>(incl, 1, lane));
+        int lmin = ab[0];
+#pragma unroll
+        for (int s = 1; s < 32; s <<= 1) {
+            const int o = __shfl_down_sync(0xffffffffu, lmin, s);
+            if (lane + s <= 31) lmin = min(lmin, o);
+        }
+        int lex = __shfl_down_sync(0xffffffffu, lmin, 1);
+        if (lane == 31) lex = kRtNone;
+        const int afrom = min(cabove, lex);
+        if (act) {
+            short sr[kRtE];
+#pragma unroll
+            for (int e = 0; e < kRtE; ++e) {
+                const int k = k0 + e;
+                sr[e] = -1;
+                // a silent bin keeps its angle; an audible one holds the sum from below
+                if (k < F && (w[e] & kRtSig)) {
+                    if (w[e] & kRtAnchor) {
+                        sr[e] = (short)k;
+                        sv[e] = -0.0f;
+                    } else if (!any) {
+                        sv[e] = 0.0f;
+                    } else {
+                        const int below = (w[e] >> 2) - 1;
+                        const int above = min(afrom, ab[e]);
+                        const int du = below >= 0 ? k - below : kRtNone;
+                        const int dd = above < kRtNone ? above - k : kRtNone;
+                        if (du <= dd) {
+                            sr[e] = (short)below;
+                        } else {
+                            sr[e] = (short)above;
+                            sv[e] = seg_compose(before, own[e]).b;
+                        }
+                    }
+                }
+            }
+            *reinterpret_cast<float4*>(seg_r + k0) = make_float4(sv[0], sv[1], sv[2], sv[3]);
+            *reinterpret_cast<short4*>(src_r + k0) = make_short4(sr[0], sr[1], sr[2], sr[3]);
+        }
+        carry = seg_compose(carry, seg_lane(incl, 0));
+        cabove = min(cabove, __shfl_sync(0xffffffffu, lmin, 0));
+        sup_right = __shfl_sync(0xffffffffu, sup[0], 0);
+    }
+}
+
+// One block walks one session.  Warps 0 .. P - 1 produce a stage (S frames
+// of one chunk) at a time, all of them together, with barriers of their own
+// between the steps: they copy (cp.async) the magnitudes of the stage's
+// frames and the two before it and the stage's angles (into the free
+// buffer's segment-sum rows) into shared memory; take the chunk's maximum
+// where the stage starts a chunk, and the logarithms; ct, lanes on
+// consecutive bins (into the buffer's ct rows); the frequency derivatives in
+// place of the logarithms; then plan a frame a warp (rt_plan_frame).  Warps
+// P .. P + C - 1 are the chain: per frame, for up to 8 bins a thread at once,
+// one gather of the previous frame's phases and of ct, two adds and a store,
+// then a barrier of the chain's warps; at a chunk boundary the re-wrap first.
+// Stages hand over by named barriers: a buffer is full when every producer
+// thread has arrived, free again when every chain thread has.
+__global__ void __launch_bounds__(32 * kRtWarps) rt_pghi_phases_kernel(RtPghiArgs p) {
     extern __shared__ __align__(16) float smem[];
     const int tid = threadIdx.x;
     const int lane = tid & 31;
     const int warp = tid >> 5;
-    const int n_warps = blockDim.x >> 5;
-    const int n_pad = blockDim.x * kBPT;
-    const int T = p.T, F = p.F, T_c = p.T_c;
+    const int F = p.F, T_c = p.T_c, S = p.S;
+    const int row = rt_row(F);
+    const int n_all = blockDim.x;
+    const int n_prod = 32 * p.P;
 
-    float* sYc = smem;
-    float* sM = sYc + n_pad;
-    float* sFs = sM + n_pad;
-    float* sWmax = sFs + n_pad;
-    float* sCmax = sWmax + 32;
-    Affine* tot_up = reinterpret_cast<Affine*>(sCmax + 32);
-    Affine* tot_dn = tot_up + 32;
+    float* sY = smem;                                 // (S + 2) x row: frames s0 - 2 ..
+    float* sPhi = sY + (size_t)(S + 2) * row;         // 2 x row
+    float* sMax = sPhi + 2 * (size_t)row;             // 32
+    int* sAny = reinterpret_cast<int*>(sMax + 32);    // 32: a flag a frame of the stage
+    float* sStage = sMax + 64;                        // kRtBufs x (seg, ct: S x row; m_prev: row)
+    const size_t buf_floats = (size_t)(2 * S + 1) * row;
+    short* sSrc = reinterpret_cast<short*>(sStage + (size_t)kRtBufs * buf_floats);
 
     const long long b = blockIdx.x;
-    const float* mag = p.mag + (size_t)b * T * F;
-    const float* ang = p.angles + (size_t)b * p.Ta * F;
-    float* out = p.phases + (size_t)b * T * F;
-    const float big = (float)(10 * F);
-    const float y_zero = logf(kPghiEps);  // logarithm of a zero magnitude
+    const float* mag = p.mag + (size_t)b * p.T * F;
+    const float* prev = p.prev_mag != nullptr ? p.prev_mag + (size_t)b * 2 * F : nullptr;
+    const int per_chunk = (T_c + S - 1) / S;
+    const int n_stages = (p.T / T_c) * per_chunk;
+    // the magnitude row of frame f >= -2 (null: a zero frame before a fresh session)
+    auto mag_row = [&](int f) -> const float* {
+        if (f >= 0) return mag + (size_t)f * F;
+        return prev != nullptr ? prev + (size_t)(f + 2) * F : nullptr;
+    };
 
-    // per bin: the phase carry, and of the two frames before the current one
-    // the magnitude (m1), the logarithms (y1, y2) and the time step (ts1); a
-    // fresh session starts after two zero frames, whose time step is the
-    // carrier term alone
-    float phi[kBPT], m1[kBPT], y1[kBPT], y2[kBPT], ts1[kBPT];
+    if (warp < p.P) {
+        // ---- producers
+        const float* ang = p.angles + (size_t)b * p.Ta * F;
+        // the maximum of the chunk that starts at frame c0, over (T_c, F),
+        // into sMax (a partial a warp): loads of every producer thread in
+        // flight at once, so that it also brings the chunk into L2
+        auto chunk_max = [&](int c0) {
+            const float* cmag = mag + (size_t)c0 * F;
+            const int n = T_c * F;
+            float c8[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+            for (int i = tid; i < n; i += 8 * n_prod) {
 #pragma unroll
-    for (int j = 0; j < kBPT; ++j) {
-        phi[j] = 0.0f;
-        m1[j] = 0.0f;
-        y1[j] = y_zero;
-        y2[j] = y_zero;
-        ts1[j] = __fmul_rn(p.carrier, (float)(tid * kBPT + j));
-    }
-    if (p.prev_mag != nullptr) {
-        // seeded: the session's carried frames (the chunked loop's
-        // mag_buffer / phase_buffer) take the place of the zero frames; the
-        // previous frame's time step comes from its logarithms as any frame's
-        const float* pm = p.prev_mag + (size_t)b * 2 * F;
-        const float* pp = p.prev_phase + (size_t)b * F;
-#pragma unroll
-        for (int j = 0; j < kBPT; ++j) {
-            const int k = tid * kBPT + j;
-            if (k < F) {
-                m1[j] = __ldg(pm + F + k);
-                y1[j] = logf(fmaxf(m1[j], kPghiEps));
-                y2[j] = logf(fmaxf(__ldg(pm + k), kPghiEps));
-                phi[j] = __ldg(pp + k);
-                sYc[k] = y1[j];
+                for (int u = 0; u < 8; ++u) {
+                    const int ii = i + u * n_prod;
+                    if (ii < n) c8[u] = fmaxf(c8[u], __ldg(cmag + ii));
+                }
             }
-        }
-        __syncthreads();
+            float c = 0.0f;
 #pragma unroll
-        for (int j = 0; j < kBPT; ++j) {
-            const int k = tid * kBPT + j;
-            if (k < F) {
-                const int kd = k > 0 ? k - 1 : 0, ku = k < F - 1 ? k + 1 : F - 1;
-                ts1[j] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(sYc[ku], sYc[kd]), 0.5f), p.inv_fmul),
-                                   __fmul_rn(p.carrier, (float)k));
-            }
-        }
-        __syncthreads();  // the first step writes sYc
-    }
-    float abstol = kPghiEps;
-
-    for (int t = 0; t < T; ++t) {
-        if (t % T_c == 0) {
-            // the chunk's threshold: its maximum over (T_c, F)
-            float cm = 0.0f;
-            const float* cmag = mag + (size_t)t * F;
-            for (int i = tid; i < T_c * F; i += blockDim.x) cm = fmaxf(cm, __ldg(cmag + i));
+            for (int u = 0; u < 8; ++u) c = fmaxf(c, c8[u]);
 #pragma unroll
-            for (int o = 16; o > 0; o >>= 1) cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, o));
-            if (lane == 0) sCmax[warp] = cm;
-            __syncthreads();
+            for (int o = 16; o > 0; o >>= 1) c = fmaxf(c, __shfl_xor_sync(0xffffffffu, c, o));
+            if (lane == 0) sMax[warp] = c;
+        };
+        auto threshold = [&]() {
             float mx = 0.0f;
-            for (int w = 0; w < n_warps; ++w) mx = fmaxf(mx, sCmax[w]);
-            abstol = fmaxf(__fmul_rn(p.tol, mx), kPghiEps);
-            if (t > 0) {
+            for (int w = 0; w < p.P; ++w) mx = fmaxf(mx, sMax[w]);
+            return fmaxf(__fmul_rn(p.tol, mx), kPghiEps);
+        };
+        chunk_max(0);
+        bar_sync(kBarProd, n_prod);
+        float thr = threshold(), thr_next = thr;
+        int s_prev = 0;  // frames of the previous stage
+        for (int g = 0; g < n_stages; ++g) {
+            const int buf = g % kRtBufs;
+            const int j = g % per_chunk;
+            const int s0 = (g / per_chunk) * T_c + j * S;
+            const int Sg = min(S, T_c - j * S);
+            const bool next_chunk = j == per_chunk - 1 && g + 1 < n_stages;
+            float* seg_b = sStage + (size_t)buf * buf_floats;
+            float* ct_b = seg_b + (size_t)S * row;
+            float* mprev_b = ct_b + (size_t)S * row;
+            short* src_b = sSrc + (size_t)buf * S * row;
+            if (j == 0) thr = thr_next;
+            // the logarithms of the two frames before the stage: the previous
+            // stage's last two rows, or the carried history
+            for (int k = tid; k < F; k += n_prod) {
+                float y0, y1;
+                if (g > 0) {
+                    y0 = sY[(size_t)s_prev * row + k];
+                    y1 = sY[(size_t)(s_prev + 1) * row + k];
+                } else {
+                    y0 = logf(fmaxf(prev != nullptr ? __ldg(prev + k) : 0.0f, kPghiEps));
+                    y1 = logf(fmaxf(prev != nullptr ? __ldg(prev + F + k) : 0.0f, kPghiEps));
+                }
+                sY[k] = y0;
+                sY[row + k] = y1;
+            }
+            s_prev = Sg;
+            bar_sync(kBarProd, n_prod);
+            // the stage's buffer is free once the chain has walked it
+            if (g >= kRtBufs) bar_sync(kBarFree + buf, n_all);
+            for (int q = warp; q < Sg; q += p.P) {
+                const float* ag = ang + (size_t)(s0 + q) * F;
+                float* ar = seg_b + (size_t)q * row;
+                for (int k = lane; k < F; k += 32) cp_async4(ar + k, ag + k);
+            }
+            if (j == 0 && s0 > 0) {
+                const float* mr = mag + (size_t)(s0 - 1) * F;
+                for (int k = tid; k < F; k += n_prod) cp_async4(mprev_b + k, mr + k);
+            }
+            // lanes on consecutive bins: the logarithms of the stage's frames
+            // and the flags of their bins by the peak rule
+            for (int q = warp; q < Sg; q += p.P) {
+                const float* mr = mag + (size_t)(s0 + q) * F;
+                const float* m1r = mag_row(s0 + q - 1);
+                float* yr = sY + (size_t)(q + 2) * row;
+                short* fq = src_b + (size_t)q * row;
+                int any = 0;
+                for (int k0 = lane; k0 < F; k0 += kRtBatch * 32) {
+                    float m[kRtBatch], m1[kRtBatch], mdn[kRtBatch], mup[kRtBatch];
+#pragma unroll
+                    for (int u = 0; u < kRtBatch; ++u) {
+                        const int k = k0 + 32 * u;
+                        const bool in = k < F;
+                        m[u] = in ? __ldg(mr + k) : 0.0f;
+                        m1[u] = in && m1r != nullptr ? __ldg(m1r + k) : 0.0f;
+                        mdn[u] = in && k > 0 ? __ldg(mr + k - 1) : -1.0f;
+                        mup[u] = in && k < F - 1 ? __ldg(mr + k + 1) : -1.0f;
+                    }
+#pragma unroll
+                    for (int u = 0; u < kRtBatch; ++u) {
+                        const int k = k0 + 32 * u;
+                        if (k < F) {
+                            yr[k] = logf(fmaxf(m[u], kPghiEps));
+                            const bool sg = m[u] > thr;
+                            const bool an = sg && m1[u] > thr && m[u] >= mdn[u] && m[u] >= mup[u];
+                            any |= an ? 1 : 0;
+                            fq[k] = (short)((sg ? kRtSig : 0) | (an ? kRtAnchor : 0));
+                        }
+                    }
+                }
+                any = __any_sync(0xffffffffu, any);
+                if (lane == 0) sAny[q] = any;
+            }
+            // the next chunk's threshold, a stage ahead
+            if (next_chunk) chunk_max(s0 + Sg);
+            cp_async_wait_all();
+            bar_sync(kBarProd, n_prod);
+            if (next_chunk) thr_next = threshold();
+            // ct from the time steps of each frame and the one before
+            for (int q = warp; q < Sg; q += p.P) {
+                const float* yc = sY + (size_t)(q + 2) * row;
+                const float* y1 = yc - row;
+                float* ctq = ct_b + (size_t)q * row;
+                for (int k = lane; k < F; k += 32) {
+                    const int kd = k > 0 ? k - 1 : 0, ku = k < F - 1 ? k + 1 : F - 1;
+                    ctq[k] = __fmul_rn(__fadd_rn(rt_ts(p, y1[kd], y1[ku], k), rt_ts(p, yc[kd], yc[ku], k)), 0.5f);
+                }
+            }
+            bar_sync(kBarProd, n_prod);
+            // fs of frame s0 + q in place of the logarithms of frame s0 + q - 2,
+            // each bin by one thread in order of q; the last two rows stay
+            for (int k = tid; k < F; k += n_prod) {
+                for (int q = 0; q < Sg; ++q) {
+                    float* y = sY + (size_t)q * row + k;
+                    *y = rt_fs(p, y[2 * row], y[row], y[0]);
+                }
+            }
+            bar_sync(kBarProd, n_prod);
+            for (int q = warp; q < Sg; q += p.P) {
+                rt_plan_frame(mag + (size_t)(s0 + q) * F, sAny[q], sY + (size_t)q * row, F,
+                              src_b + (size_t)q * row, seg_b + (size_t)q * row, lane);
+            }
+            bar_arrive(kBarFull + buf, n_all);
+            // the logarithms, the flags and the maxima are rewritten by the next stage
+            bar_sync(kBarProd, n_prod);
+        }
+    } else {
+        // ---- the chain
+        const int ct_id = tid - n_prod;
+        const int n_chain = n_all - n_prod;
+        float* out = p.phases + (size_t)b * p.T * F;
+        float* cur = sPhi;
+        float* nxt = sPhi + row;
+        for (int k = ct_id; k < F; k += n_chain)
+            cur[k] = p.prev_phase != nullptr ? __ldg(p.prev_phase + (size_t)b * F + k) : 0.0f;
+        bar_sync(kBarChain, n_chain);
+        for (int g = 0; g < n_stages; ++g) {
+            const int buf = g % kRtBufs;
+            const int j = g % per_chunk;
+            const int s0 = (g / per_chunk) * T_c + j * S;
+            const int Sg = min(S, T_c - j * S);
+            const float* seg_b = sStage + (size_t)buf * buf_floats;
+            const float* ct_b = seg_b + (size_t)S * row;
+            const float* mprev_b = ct_b + (size_t)S * row;
+            const short* src_b = sSrc + (size_t)buf * S * row;
+            bar_sync(kBarFull + buf, n_all);
+            if (s0 > 0 && j == 0) {
                 // the carry the chunked loop hands over: the angle of the
                 // committed spectrum's last frame
+                for (int k0 = ct_id; k0 < F; k0 += kRtBatch * n_chain) {
 #pragma unroll
-                for (int j = 0; j < kBPT; ++j) {
-                    float sn, cs;
-                    sincosf(phi[j], &sn, &cs);
-                    phi[j] = atan2f(__fmul_rn(m1[j], sn), __fmul_rn(m1[j], cs));
+                    for (int u = 0; u < kRtBatch; ++u) {
+                        const int k = k0 + u * n_chain;
+                        if (k < F) {
+                            float sn, cs;
+                            sincosf(cur[k], &sn, &cs);
+                            const float m = mprev_b[k];
+                            cur[k] = atan2f(__fmul_rn(m, sn), __fmul_rn(m, cs));
+                        }
+                    }
                 }
+                bar_sync(kBarChain, n_chain);
             }
-        }
-
-        float mc[kBPT], yc[kBPT], fs[kBPT], tsc[kBPT];
-        float wmax = -1.0f;
+            for (int q = 0; q < Sg; ++q) {
+                const short* sr = src_b + (size_t)q * row;
+                const float* sg = seg_b + (size_t)q * row;
+                const float* cr = ct_b + (size_t)q * row;
+                float* o = out + (size_t)(s0 + q) * F;
+                for (int k0 = ct_id; k0 < F; k0 += kRtBatch * n_chain) {
+                    int s[kRtBatch];
+                    float gv[kRtBatch], cv[kRtBatch], pv[kRtBatch];
 #pragma unroll
-        for (int j = 0; j < kBPT; ++j) {
-            const int k = tid * kBPT + j;
-            float v = 0.0f;
-            if (k < F) {
-                v = __ldg(mag + (size_t)t * F + k);
-                wmax = fmaxf(wmax, v);
-            }
-            yc[j] = logf(fmaxf(v, kPghiEps));
-            const float dydt = __fmul_rn(
-                __fadd_rn(__fsub_rn(__fmul_rn(3.0f, yc[j]), __fmul_rn(4.0f, y1[j])), y2[j]), 0.5f);
-            mc[j] = v;
-            fs[j] = __fadd_rn(__fmul_rn(-p.fmul, dydt), kPiF);
-            sYc[k] = yc[j];
-            sM[k] = v;
-            sFs[k] = fs[j];
-        }
+                    for (int u = 0; u < kRtBatch; ++u) {
+                        const int k = k0 + u * n_chain;
+                        s[u] = k < F ? sr[k] : -1;
+                        gv[u] = k < F ? sg[k] : 0.0f;
+                    }
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1) wmax = fmaxf(wmax, __shfl_xor_sync(0xffffffffu, wmax, o));
-        if (lane == 0) sWmax[warp] = wmax;
-        __syncthreads();
-
-        Affine up[kBPT], dn[kBPT];
-        float phit[kBPT];
-        bool anch[kBPT], sig[kBPT];
-        int any_local = 0;
+                    for (int u = 0; u < kRtBatch; ++u) {
+                        cv[u] = s[u] >= 0 ? cr[s[u]] : 0.0f;
+                        pv[u] = s[u] >= 0 ? cur[s[u]] : 0.0f;
+                    }
 #pragma unroll
-        for (int j = 0; j < kBPT; ++j) {
-            const int k = tid * kBPT + j;
-            anch[j] = false;
-            sig[j] = false;
-            phit[j] = 0.0f;
-            tsc[j] = 0.0f;
-            up[j] = identity_map();
-            dn[j] = identity_map();
-            if (k < F) {
-                const int kd = k > 0 ? k - 1 : 0, ku = k < F - 1 ? k + 1 : F - 1;
-                const float ck = __fmul_rn(p.carrier, (float)k);
-                tsc[j] = __fadd_rn(
-                    __fmul_rn(__fmul_rn(__fsub_rn(sYc[ku], sYc[kd]), 0.5f), p.inv_fmul), ck);
-                const float ct = __fmul_rn(__fadd_rn(ts1[j], tsc[j]), 0.5f);
-                phit[j] = __fadd_rn(phi[j], ct);
-                up[j].b = k == 0 ? 0.0f : __fmul_rn(__fadd_rn(fs[j], sFs[k - 1]), 0.5f);
-                dn[j].b = k == F - 1 ? 0.0f : -__fmul_rn(__fadd_rn(fs[j], sFs[k + 1]), 0.5f);
-                sig[j] = mc[j] > abstol;
-                const float m_dn = k == 0 ? -1.0f : sM[k - 1];
-                const float m_up = k == F - 1 ? -1.0f : sM[k + 1];
-                anch[j] = sig[j] && m1[j] > abstol && mc[j] >= m_dn && mc[j] >= m_up;
-                any_local |= anch[j] ? 1 : 0;
-            }
-        }
-        int any_anchor = __syncthreads_or(any_local);
-        if (!any_anchor) {
-            // onset: every audible bin equal to the frame maximum seeds
-            float fmax_ = -1.0f;
-            for (int w = 0; w < n_warps; ++w) fmax_ = fmaxf(fmax_, sWmax[w]);
-            any_local = 0;
-#pragma unroll
-            for (int j = 0; j < kBPT; ++j) {
-                const int k = tid * kBPT + j;
-                anch[j] = k < F && sig[j] && mc[j] == fmax_;
-                any_local |= anch[j] ? 1 : 0;
-            }
-            any_anchor = __syncthreads_or(any_local);
-        }
-#pragma unroll
-        for (int j = 0; j < kBPT; ++j) {
-            const int k = tid * kBPT + j;
-            if (k < F) {
-                const float a0 = anch[j] ? 0.0f : 1.0f;
-                up[j].a = a0;
-                dn[j].a = a0;
-                up[j].d = a0;
-                dn[j].d = a0;
-                if (anch[j]) {
-                    up[j].b = phit[j];
-                    dn[j].b = phit[j];
+                    for (int u = 0; u < kRtBatch; ++u) {
+                        const int k = k0 + u * n_chain;
+                        if (k < F) {
+                            const float v = s[u] >= 0 ? __fadd_rn(__fadd_rn(pv[u], cv[u]), gv[u]) : gv[u];
+                            nxt[k] = v;
+                            o[k] = v;
+                        }
+                    }
                 }
+                bar_sync(kBarChain, n_chain);
+                float* tmp = cur;
+                cur = nxt;
+                nxt = tmp;
             }
+            if (g + kRtBufs < n_stages) bar_arrive(kBarFree + buf, n_all);
         }
-        block_scan<kBPT, true>(up, tot_up, lane, warp, n_warps);
-        block_scan<kBPT, false>(dn, tot_dn, lane, warp, n_warps);
-#pragma unroll
-        for (int j = 0; j < kBPT; ++j) {
-            const int k = tid * kBPT + j;
-            if (k < F) {
-                const float du = up[j].a == 0.0f ? up[j].d : big;
-                const float dd = dn[j].a == 0.0f ? dn[j].d : big;
-                float filled = du <= dd ? up[j].b : dn[j].b;  // a tie takes the fill from below
-                if (!any_anchor) filled = 0.0f;
-                float v = anch[j] ? phit[j] : filled;
-                if (!sig[j]) v = __ldg(ang + (size_t)t * F + k);
-                phi[j] = v;
-                out[(size_t)t * F + k] = v;
-            }
-            y2[j] = y1[j];
-            y1[j] = yc[j];
-            m1[j] = mc[j];
-            ts1[j] = tsc[j];
-        }
-        // the scans' barriers lie between this step's reads of the shared rows
-        // and the next step's writes
     }
 }
 
@@ -753,26 +1106,26 @@ int att_pghi_phases(const float* mag, const float* angles, const float* abstol, 
     return (int)cudaGetLastError();
 }
 
-long long att_rt_pghi_smem_bytes(int n_pad) {
-    return (long long)att::rt_pghi_smem_bytes(n_pad);
+long long att_rt_pghi_smem_bytes(int F, int S) {
+    return (long long)att::rt_pghi_smem_bytes(F, S);
 }
 
 // mag, phases: (B, T, F) float32 with T a multiple of T_c; angles (B, Ta, F),
 // Ta >= T.  prev_mag (B, 2, F) and prev_phase (B, F) seed the session with a
-// carried history (both or neither; null: a fresh session).  bpt bins per
-// thread (1, 2 or 4) with ceil(F / (32 bpt)) warps per block, at most 32; one
-// block per session.  Returns a cudaError_t.
+// carried history (both or neither; null: a fresh session).  The block:
+// stages of S frames (1 <= S <= min(T_c, 16)) in two buffers, P producer
+// warps (at most S) and C chain warps, P + C <= 24; one block per session.
+// F from 2 to 4096.  Returns a cudaError_t.
 int att_rt_pghi_phases(const float* mag, const float* angles, const float* prev_mag,
                        const float* prev_phase, float* phases, long long B, int T, int Ta, int F,
-                       int T_c, float tol, float fmul, float inv_fmul, float carrier, int bpt,
-                       void* stream) {
+                       int T_c, float tol, float fmul, float inv_fmul, float carrier, int S,
+                       int P, int C, void* stream) {
     using namespace att;
-    if (B < 1 || T < 1 || F < 2 || T_c < 1 || T % T_c != 0 || Ta < T ||
-        (prev_mag == nullptr) != (prev_phase == nullptr)) {
+    if (B < 1 || T < 1 || F < 2 || F > 4096 || T_c < 1 || T % T_c != 0 || Ta < T ||
+        (prev_mag == nullptr) != (prev_phase == nullptr) || S < 1 || S > T_c ||
+        S > kRtStage || P < 1 || P > S || C < 1 || P + C > kRtWarps) {
         return (int)cudaErrorInvalidValue;
     }
-    const int n_warps = (F + 32 * bpt - 1) / (32 * bpt);
-    if (n_warps > 32 || (bpt != 1 && bpt != 2 && bpt != 4)) return (int)cudaErrorInvalidValue;
     RtPghiArgs a;
     a.mag = mag;
     a.angles = angles;
@@ -787,21 +1140,13 @@ int att_rt_pghi_phases(const float* mag, const float* angles, const float* prev_
     a.fmul = fmul;
     a.inv_fmul = inv_fmul;
     a.carrier = carrier;
-    const int threads = 32 * n_warps;
-    const size_t smem = rt_pghi_smem_bytes(threads * bpt);
-    dim3 grid((unsigned)B);
-    cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t err;
-#define ATT_LAUNCH_RT_PGHI(BPT)                                             \
-    do {                                                                    \
-        err = pghi_allow_smem(rt_pghi_phases_kernel<BPT>, smem);            \
-        if (err != cudaSuccess) return (int)err;                            \
-        rt_pghi_phases_kernel<BPT><<<grid, threads, smem, s>>>(a);          \
-    } while (0)
-    if (bpt == 1) ATT_LAUNCH_RT_PGHI(1);
-    else if (bpt == 2) ATT_LAUNCH_RT_PGHI(2);
-    else ATT_LAUNCH_RT_PGHI(4);
-#undef ATT_LAUNCH_RT_PGHI
+    a.S = S;
+    a.P = P;
+    a.C = C;
+    const size_t smem = rt_pghi_smem_bytes(F, S);
+    cudaError_t err = pghi_allow_smem(rt_pghi_phases_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    rt_pghi_phases_kernel<<<dim3((unsigned)B), 32 * (P + C), smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }
 

@@ -196,12 +196,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         ll, i, i, f, f, f, i, i, p,      # B, T, F, fmul, 1 / fmul, carrier, bidir, bpt, stream
     ]
     lib.att_pghi_phases.restype = i
-    lib.att_rt_pghi_smem_bytes.argtypes = [i]
+    lib.att_rt_pghi_smem_bytes.argtypes = [i, i]
     lib.att_rt_pghi_smem_bytes.restype = ll
     lib.att_rt_pghi_phases.argtypes = [
         p, p, p, p, p,                   # mag, angles, prev_mag, prev_phase (or None), phases
         ll, i, i, i, i,                  # B, T, Ta, F, T_c
-        f, f, f, f, i, p,                # tol, fmul, 1 / fmul, carrier, bpt, stream
+        f, f, f, f,                      # tol, fmul, 1 / fmul, carrier
+        i, i, i, p,                      # stage, producer and chain warps, stream
     ]
     lib.att_rt_pghi_phases.restype = i
     lib.att_pghi_synthesize.argtypes = [

@@ -34,11 +34,11 @@ instantaneous frequency, or ``Im``) with an affine each.  Their full-K front
 end (kernels G and H full-K) takes the same two routes by the same rule; on
 the FFT route a block with the IF computes two frames before its tile (the
 halo frame and its FFT partner), so that every frame goes through the FFT
-with the partner it has in the plain version's whole-clip schedule.  The
-statistics with ``taps`` (kernel H) take H full-K's FFT route under the taps'
-own window where ``fft_covers(n_fft)``; the forward with ``taps`` (kernel G)
-stays factored: the rule is per launch kind (:func:`_repr_plan`).
-``routes`` counts the launches by route.
+with the partner it has in the plain version's whole-clip schedule.  With
+``taps`` the forward (kernel G) and the statistics (kernel H) take G and H
+full-K's FFT route under the taps' own window where ``fft_covers(n_fft)``,
+the factored front end elsewhere: A, B, G and H share one rule
+(:func:`_repr_plan`).  ``routes`` counts the launches by route.
 
 ``melspec_forward_stage`` runs the factored forward cut after one of its
 stages (``STAGES``) on prepared rows: the kernel of the floor sweep
@@ -106,14 +106,15 @@ launches: Dict[str, int] = {
 }
 #: the launches by route, ``"<kernel>:fft"`` / ``"<kernel>:product"`` /
 #: ``"<kernel>:factored"`` (each also counts in ``launches``): the full-K
-#: kernels, and A, B, G and H with taps (A, B and H take the FFT route where
-#: ``fft_covers(n_fft)``, G stays factored)
+#: kernels, and A, B, G and H with taps (the FFT route where
+#: ``fft_covers(n_fft)``, the factored front end elsewhere)
 routes: Dict[str, int] = {
     "fused_melspec_fullk:fft": 0, "fused_melspec_fullk:product": 0,
     "fused_melspec_stats_fullk:fft": 0, "fused_melspec_stats_fullk:product": 0,
     "fused_melspec:fft": 0, "fused_melspec:factored": 0,
     "fused_melspec_stats:fft": 0, "fused_melspec_stats:factored": 0,
-    "fused_spectral_repr:factored": 0, "fused_repr_stats:fft": 0, "fused_repr_stats:factored": 0,
+    "fused_spectral_repr:fft": 0, "fused_spectral_repr:factored": 0,
+    "fused_repr_stats:fft": 0, "fused_repr_stats:factored": 0,
     "fused_spectral_repr_fullk:fft": 0, "fused_spectral_repr_fullk:product": 0,
     "fused_repr_stats_fullk:fft": 0, "fused_repr_stats_fullk:product": 0,
 }
@@ -321,15 +322,14 @@ def _fullk_spectrum(x, n_fft, hop, center, window):
     return torch.matmul(frames, WC), torch.matmul(frames, WS)
 
 
-def _spectrum(x, n_fft, hop, center, taps, window, factored: bool = False):
+def _spectrum(x, n_fft, hop, center, taps, window):
     """(re, im) of the front end and route the kernels take: the full-K one
     on its route without ``taps``; with them, where ``fft_covers(n_fft)``,
     the FFT route's schedule under the taps' own window, else the factored
-    front end.  ``factored``: the factored front end with taps at every
-    ``n_fft`` (the forward of the representations, G)."""
+    front end."""
     if taps is None:
         return _fullk_spectrum(x, n_fft, hop, center, window)
-    if not factored and fft_covers(n_fft):
+    if fft_covers(n_fft):
         (w,) = _tables(taps_window, x.device, tuple(float(t) for t in taps), n_fft)
         return _fullk_spectrum(x, n_fft, hop, center, w)
     return _factored_spectrum(x, n_fft, hop, center, taps)
@@ -696,14 +696,12 @@ def _if_rows(ph: torch.Tensor, weighted: bool) -> torch.Tensor:
     return v
 
 
-def _repr_channels(x, n_fft, hop, center, taps, window, second, contrast, mel_bank, weighted,
-                   stats: bool = False):
+def _repr_channels(x, n_fft, hop, center, taps, window, second, contrast, mel_bank, weighted):
     """Pre-affine (channel 1, channel 2) of the representation kernels, on
     the front end and route the kernel takes: the FFT route's schedule over
-    the whole clip where ``fft_covers(n_fft)`` and ``taps=None``, or with
-    ``taps`` for the statistics (``stats``, H) under the taps' own window;
-    the forward with ``taps`` (G) on the factored front end."""
-    re, im = _spectrum(x, n_fft, hop, center, taps, window, factored=not stats)
+    the whole clip where ``fft_covers(n_fft)`` (with ``taps`` under the taps'
+    own window), the factored or the product front end elsewhere."""
+    re, im = _spectrum(x, n_fft, hop, center, taps, window)
     im = _pin_nyquist(im)
     if second == "imag":
         return re, im
@@ -759,7 +757,7 @@ def fused_repr_stats_reference(
     if second == "imag":
         contrast = "none"
     c1, c2 = _repr_channels(x, n_fft, hop_length, center, taps, window, second, contrast,
-                            None, weighted, stats=True)
+                            None, weighted)
 
     def chan(v):
         vd = v.double()
@@ -790,11 +788,9 @@ def _repr_kernel_tile(n_fft, hop, taps) -> int:
 def _repr_plan(n_fft, hop, taps, stats, second, mel) -> Tuple[int, int]:
     """``(tile_t, teams)`` of the representation kernels for this shape,
     ``teams = 0`` off the FFT route, or raise: the kernels never give way.
-    ``fft_covers(n_fft)`` selects the FFT route for every launch without
-    taps and for the statistics (H) with them; the forward with taps (G)
-    stays factored.  The rule is per launch kind."""
-    if ((taps is None or stats) and fft_covers(n_fft)
-            and fused_melspec_available(n_fft, hop, taps)):
+    ``fft_covers(n_fft)`` selects the FFT route for every launch, with taps
+    (under their own window) or without, as :func:`_kernel_plan` does."""
+    if fft_covers(n_fft) and fused_melspec_available(n_fft, hop, taps):
         plan = _pick_repr_fft_plan(n_fft, hop, stats, second, mel)
         if plan is None:
             raise _repr_refusal(n_fft, hop)

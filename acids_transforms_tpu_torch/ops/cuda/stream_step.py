@@ -26,8 +26,10 @@ to three kernel launches instead of a Python loop of small ops per chunk
   synthesis product elsewhere;
 * ``make_fused_pghi_roundtrip`` (N): the phaseless RT-PGHI roundtrip, three
   launches: the magnitude encode (R's analysis with an ``|X|`` epilogue), the
-  recurrence (``csrc/pghi.cu:rt_pghi_phases_kernel``, one block per session
-  walking its chunks in order), P's synthesis with the recurrence's phases;
+  recurrence (``csrc/pghi.cu:rt_pghi_phases_kernel``, one block per session:
+  producer warps plan each stage of frames from the magnitudes while chain
+  warps walk the previous stage's frames in order; :func:`_rt_plan`), P's
+  synthesis with the recurrence's phases;
 * ``make_fused_pghi_invert`` (Q): the RT-PGHI decode, the last two of those;
 * ``make_fused_magnitude_session``: the magnitude encode alone (the
   ``[.., Magnitude]`` chains' RT-PGHI roundtrip runs it, then Q);
@@ -94,9 +96,21 @@ the generic scan's ``RealtimeSTFT.pghi_stream`` carries.  Like that scan, the
 phase carry is re-wrapped at every chunk boundary to the angle of ``m e^{i
 phi}`` of the last frame (the JAX kernel carries it unwrapped, ROADMAP Queue
 3).  The magnitudes carried are the frames' own (the generic scan takes
-``|m e^{i phi}|``, equal up to rounding).  The plain version
-(:func:`rt_pghi_phases_reference`) repeats the kernel's order of additions,
-as ``pghi_kernel.py`` does for K.
+``|m e^{i phi}|``, equal up to rounding).
+
+Everything in a frame's fill but the phase carry comes from magnitudes: the
+threshold, the anchors (the onset rule included), the time steps ``ct`` and,
+for every bin, the source of its value (:func:`rt_fill_plan`): itself at an
+anchor, the nearest anchor below or above (the nearer; a tie takes the one
+below), a constant where the frame has no anchor (0) or the bin is silent
+(its angle), and the segment sum of the frequency steps from that anchor to
+the bin.  The serial chain is then ``phi_t[k] = (phi_{t-1}[src] +
+ct[src]) + seg[k]`` a bin, and the re-wrap at chunk boundaries.  The
+segment sums are segmented scans in a fixed order of float32 additions
+(:func:`_fill_scan`: tiles of 128 bins, 4 a lane, Kogge-Stone over the
+lanes, the tiles' carry): local sums, with no cancellation between numbers
+of the phases' size.  The plain version (:func:`rt_pghi_phases_reference`)
+repeats the kernel's operations in order.
 
 ``pghi_gl``.  The chunk's ``T_c + lookahead`` frames (the pending ones
 first) go through the recurrence as one chunk: one threshold over all of
@@ -143,7 +157,7 @@ from .frames_fft import (
     irfft_window,
     overlap_add_classes,
 )
-from .pghi_kernel import _bins_per_thread, _fill_frame, ola_supported
+from .pghi_kernel import ola_supported
 
 __all__ = [
     "fused_forward_session_available", "make_fused_forward_session",
@@ -157,12 +171,18 @@ __all__ = [
     "fused_pghi_gl_invert_available", "make_fused_pghi_gl_invert",
     "kernel_covers", "session_rows", "session_angles", "rt_pghi_phases", "gl_project", "gl_polish",
     "session_encode_reference", "session_roundtrip_reference", "session_decode_reference",
-    "session_magnitude_reference", "rt_pghi_phases_reference", "session_complex_decode_reference",
+    "session_magnitude_reference", "rt_fill_plan", "rt_pghi_phases_reference",
+    "session_complex_decode_reference",
     "gl_project_reference", "gl_polish_reference", "session_pghi_gl_reference", "launches", "routes",
     "reset_launches",
 ]
 
 MAX_ROWS = 40                     # frames one block's analysis holds (8 warps x 5 rows)
+RT_MAX_BINS = 4096                # bins the RT-PGHI recurrence takes
+_FILL_E = 4                       # bins a lane owns in a tile of the fill's scans
+_FILL_TILE = 32 * _FILL_E         # bins a warp's scan covers at a time
+_RT_WARPS = 24                    # warps of the recurrence's block, at most
+_RT_STAGE = 16                    # frames of a stage, at most (csrc/pghi.cu: kRtStage)
 MAX_OVERLAP = 8
 _KC = 32                          # staged contraction rows (dft_common.cuh, synth_ola.cuh)
 _STAGE = 2 * 32 * 128             # floats of the staging area both phases share
@@ -515,7 +535,7 @@ def kernel_covers(kind: str, n_fft: int, hop: int, rows: Optional[int] = None,
     limits and at most 40 polished frames whose samples fit shared memory
     (the two-launch projection)."""
     if kind == "recurrence":
-        return n_fft % hop == 0 and _bins_per_thread(n_fft // 2 + 1) is not None
+        return n_fft % hop == 0 and n_fft // 2 + 1 <= RT_MAX_BINS
     if kind == "project":
         rows = int(rows)
         tp = (rows if ctx is None else int(ctx)) + rows + n_fft // hop - 1
@@ -747,25 +767,65 @@ def _rt_constants(gamma: float, n_fft: int, hop: int):
     return fmul, 1.0 / fmul, 2.0 * math.pi * hop / n_fft
 
 
-def rt_pghi_phases_reference(mag, angles, gamma: float, n_fft: int, hop: int, tolerance: float,
-                             chunk_frames: int, prev_mag=None, prev_phase=None) -> torch.Tensor:
-    """Plain version of the RT-PGHI recurrence: magnitudes ``(B, T, F)``, ``T``
-    a multiple of ``chunk_frames``, and the silent bins' angles ``(B, >= T,
-    F)`` -> phases ``(B, T, F)``, in the kernel's order of additions (see the
-    module notes).  Frame ``t``'s two previous frames are the session's own
-    (before the first: ``prev_mag (B, 2, F)``, or two zero frames); chunk
-    ``c``'s threshold is ``max(tolerance * max(mag[c]), EPS)``; the phase
-    carry starts at ``prev_phase (B, F)`` (or zeros) and at each chunk
-    boundary becomes ``atan2(m sin phi, m cos phi)`` of the last frame."""
+def _fill_compose(l, r):
+    """Apply ``l`` (earlier) then ``r``: segmented sums with head flags, ``(f,
+    b)`` = (the span holds an anchor, the sum of its steps since the last
+    one); a head restarts the sum."""
+    return l[0] | r[0], torch.where(r[0], r[1], l[1] + r[1])
+
+
+def _lane_shift(x, s: int):
+    """Elements moved ``s`` places up the last axis (the lanes), empty spans
+    ``(False, 0)`` shifted in."""
+    return tuple(torch.cat([torch.zeros_like(c[..., :s]), c[..., :-s]], dim=-1) for c in x)
+
+
+def _fill_scan(f: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Inclusive segmented sums of ``b`` up the last axis (a multiple of 128
+    long), restarting at the heads ``f``, in the kernel's order of float32
+    additions: a lane's 4 bins of a 128-bin tile in order, a Kogge-Stone
+    scan over the 32 lanes' totals, then for each bin ``compose(compose(the
+    tiles before, the lanes before), its own prefix)``; the tiles' carry is
+    ``compose(carry, the tile's total)``."""
+    lead, n = f.shape[:-1], f.shape[-1]
+    nt = n // _FILL_TILE
+    f = f.reshape(lead + (nt, 32, _FILL_E))
+    b = b.reshape(lead + (nt, 32, _FILL_E))
+    own = [(f[..., 0], b[..., 0])]
+    for e in range(1, _FILL_E):
+        own.append(_fill_compose(own[-1], (f[..., e], b[..., e])))
+    incl, s = own[-1], 1
+    while s < 32:
+        incl = _fill_compose(_lane_shift(incl, s), incl)
+        s *= 2
+    lprev = _lane_shift(incl, 1)
+    carry = (torch.zeros_like(f[..., 0, :1, 0]), torch.zeros_like(b[..., 0, :1, 0]))
+    out = []
+    for i in range(nt):
+        before = _fill_compose(carry, (lprev[0][..., i, :], lprev[1][..., i, :]))
+        out.append(torch.stack([_fill_compose(before, (o[0][..., i, :], o[1][..., i, :]))[1] for o in own],
+                               dim=-1))
+        carry = _fill_compose(carry, (incl[0][..., i, 31:], incl[1][..., i, 31:]))
+    return torch.stack(out, dim=-3).reshape(lead + (n,))
+
+
+def rt_fill_plan(mag, angles, gamma: float, n_fft: int, hop: int, tolerance: float, chunk_frames: int,
+                 prev_mag=None):
+    """The magnitude-only part of the RT-PGHI recurrence, for every frame at
+    once (module notes): ``mag (B, T, F)``, ``T`` a multiple of
+    ``chunk_frames``, and the silent bins' angles ``(B, >= T, F)`` -> ``(src,
+    ct, seg)``, each ``(B, T, F)``: a bin takes ``(phi[src] + ct[src]) +
+    seg`` of the previous frame's phases ``phi`` where ``src >= 0``, else
+    the constant ``seg``.  Frame ``t``'s two previous frames are the
+    session's own (before the first: ``prev_mag (B, 2, F)``, or two zero
+    frames); chunk ``c``'s threshold is ``max(tolerance * max(mag[c]),
+    EPS)``."""
     B, T, n_bins = mag.shape
     T_c = int(chunk_frames)
     if T % T_c:
         raise ValueError("%d frames are no whole number of %d-frame chunks" % (T, T_c))
     dev, dt = mag.device, torch.float32
     fmul, inv_fmul, carrier = _rt_constants(gamma, n_fft, hop)
-    bpt = _bins_per_thread(n_bins)
-    n_pad = -(-n_bins // (32 * bpt)) * 32 * bpt
-    # the carried history (a fresh session: two zero frames)
     prev = mag.new_zeros((B, 2, n_bins)) if prev_mag is None else prev_mag.to(dt)
     mz = torch.cat([prev, mag], dim=1)
     Yz = torch.log(torch.clamp_min(mz, EPS))
@@ -784,25 +844,59 @@ def rt_pghi_phases_reference(mag, angles, gamma: float, n_fft: int, hop: int, to
     del fs, trap
     mx = mag.reshape(B, T // T_c, T_c * n_bins).amax(dim=-1)
     thr = torch.clamp_min(tolerance * mx, EPS).repeat_interleave(T_c, dim=1)[..., None]
-    Mp = mz[:, 1:-1]
     sig = mag > thr
     mpad = torch.nn.functional.pad(mag, (1, 1), value=-1.0)
-    anch = sig & (Mp > thr) & (mag >= mpad[..., :-2]) & (mag >= mpad[..., 2:])
+    anch = sig & (mz[:, 1:-1] > thr) & (mag >= mpad[..., :-2]) & (mag >= mpad[..., 2:])
     onset = ~anch.any(dim=-1, keepdim=True)
     anch = anch | (onset & sig & (mag == mag.amax(dim=-1, keepdim=True)))
     any_anchor = anch.any(dim=-1, keepdim=True)
-    del mpad, onset
+    del mpad, onset, mz
 
-    big = float(10 * n_bins)
-    out = torch.empty((B, T, n_bins), device=dev, dtype=dt)
-    phi = (torch.zeros((B, n_bins), device=dev, dtype=dt) if prev_phase is None
-           else prev_phase.to(dt).clone())
+    # the segment sums from the nearest anchor on each side (the downward
+    # scan runs up the flipped padded row, empty spans first)
+    pad = (0, -(-n_bins // _FILL_TILE) * _FILL_TILE - n_bins)
+    fp = torch.nn.functional.pad(anch, pad)
+    seg_up = _fill_scan(fp, torch.nn.functional.pad(torch.where(anch, 0.0, sup), pad))[..., :n_bins]
+    seg_dn = _fill_scan(fp.flip(-1), torch.nn.functional.pad(torch.where(anch, 0.0, sdn), pad).flip(-1))
+    seg_dn = seg_dn.flip(-1)[..., :n_bins]
+    del sup, sdn, fp
+    k = torch.arange(n_bins, device=dev)
+    none = 2 * RT_MAX_BINS
+    below = torch.cummax(torch.where(anch, k, -1), dim=-1).values
+    above = torch.cummin(torch.where(anch, k, none).flip(-1), dim=-1).values.flip(-1)
+    du = torch.where(below >= 0, k - below, none)
+    dd = torch.where(above < none, above - k, none)
+    from_below = du <= dd                        # a tie takes the fill from below
+    src = torch.where(from_below, below, above)
+    seg = torch.where(from_below, seg_up, seg_dn)
+    src = torch.where(anch, k, torch.where(any_anchor, src, -1))
+    seg = torch.where(anch, -0.0, torch.where(any_anchor, seg, 0.0))
+    src = torch.where(sig, src, -1)
+    seg = torch.where(sig, seg, angles[:, :T].to(dt))
+    return src, ct, seg
+
+
+def rt_pghi_phases_reference(mag, angles, gamma: float, n_fft: int, hop: int, tolerance: float,
+                             chunk_frames: int, prev_mag=None, prev_phase=None) -> torch.Tensor:
+    """Plain version of the RT-PGHI recurrence: magnitudes ``(B, T, F)``, ``T``
+    a multiple of ``chunk_frames``, and the silent bins' angles ``(B, >= T,
+    F)`` -> phases ``(B, T, F)``, in the kernel's order of operations (see
+    the module notes): :func:`rt_fill_plan`, then the chain over frames.  The
+    phase carry starts at ``prev_phase (B, F)`` (or zeros) and at each chunk
+    boundary becomes ``atan2(m sin phi, m cos phi)`` of the last frame."""
+    src, ct, seg = rt_fill_plan(mag, angles, gamma, n_fft, hop, tolerance, chunk_frames, prev_mag)
+    B, T, n_bins = mag.shape
+    T_c = int(chunk_frames)
+    out = torch.empty((B, T, n_bins), device=mag.device, dtype=torch.float32)
+    phi = (mag.new_zeros((B, n_bins)) if prev_phase is None else prev_phase.to(torch.float32).clone())
     for t in range(T):
         if t and t % T_c == 0:
             m = mag[:, t - 1]
             phi = torch.atan2(m * torch.sin(phi), m * torch.cos(phi))
-        phi = _fill_frame(phi, ct[:, t], anch[:, t], sup[:, t], sdn[:, t], any_anchor[:, t],
-                          sig[:, t], angles[:, t], bpt, n_pad, big, dt)
+        s = src[:, t]
+        sc = s.clamp_min(0)
+        v = (phi.gather(1, sc) + ct[:, t].gather(1, sc)) + seg[:, t]
+        phi = torch.where(s >= 0, v, seg[:, t])
         out[:, t] = phi
     return out
 
@@ -837,12 +931,43 @@ def _launch_encode(x2d, ops, n_fft, hop, T, magnitude: bool = False) -> torch.Te
     return out
 
 
+def _rt_smem_bytes(n_bins: int, stage: int) -> int:
+    """Shared memory of the recurrence's block, as ``csrc/pghi.cu:
+    rt_pghi_smem_bytes`` lays it out: rows of ``n_bins`` rounded up to 4 (the
+    logarithms of a stage's frames and the two before it, the chain's two
+    phase rows), 64 words of chunk maxima and anchor flags, and two buffers
+    of ``stage`` frames (a float segment sum, a float ``ct`` and an int16
+    source a bin) and the magnitudes of the frame before."""
+    row = -(-n_bins // 4) * 4
+    return 4 * ((stage + 4) * row + 64) + 2 * row * (stage * 10 + 4)
+
+
+def _rt_plan(n_bins: int, T_c: int) -> Tuple[int, int, int]:
+    """``(stage, producers, chain)`` of the recurrence's block: the frames a
+    stage holds (at most 16, within a chunk, as few stages a chunk as fit
+    shared memory beside the other stage buffer, and of even size: 16 frames
+    at 513 bins, 8 at 1025, 3 at 2049, 1 at 4096), the producer warps (a
+    frame a warp) and the chain warps (one per 256 bins, at most 4); at most
+    24 warps in all.  A seeded one-chunk session takes the same plan (22
+    frames: two stages of 11).  Every ``n_bins <= 4096`` has a plan at any
+    ``T_c``."""
+    if not 2 <= n_bins <= RT_MAX_BINS or T_c < 1:
+        raise ValueError("the recurrence takes 2 to %d bins and chunks of a frame or more" % RT_MAX_BINS)
+    chain = min(4, -(-n_bins // 256))
+    fit = min(T_c, _RT_STAGE)
+    while _rt_smem_bytes(n_bins, fit) > MAX_SMEM:
+        fit -= 1
+    n = -(-T_c // fit)                           # the fewest stages a chunk, of even size
+    stage = -(-T_c // n)
+    return stage, min(stage, _RT_WARPS - chain), chain
+
+
 def _launch_rt_pghi(mag, angles, gamma, n_fft, hop, tolerance, T_c, prev_mag=None,
                     prev_phase=None) -> torch.Tensor:
     """The RT-PGHI recurrence: ``mag (B, T, F)``, ``T`` a multiple of ``T_c``,
     ``angles (B, >= T, F)`` -> phases ``(B, T, F)``; seeded by ``prev_mag (B,
     2, F)`` and ``prev_phase (B, F)`` when given (counted as
-    ``rt_pghi_seeded``)."""
+    ``rt_pghi_seeded``); the block as :func:`_rt_plan` gives it."""
     _require("recurrence", n_fft, hop)
     B, T, F = mag.shape
     if T % T_c:
@@ -858,7 +983,7 @@ def _launch_rt_pghi(mag, angles, gamma, n_fft, hop, tolerance, T_c, prev_mag=Non
         code = lib.att_rt_pghi_phases(
             mag.data_ptr(), angles.data_ptr(), prev_mag.data_ptr() if seeded else None,
             prev_phase.data_ptr() if seeded else None, out.data_ptr(), B, T, angles.shape[1], F, T_c,
-            float(tolerance), fmul, inv_fmul, carrier, _bins_per_thread(F), _stream(),
+            float(tolerance), fmul, inv_fmul, carrier, *_rt_plan(F, T_c), _stream(),
         )
     name = "rt_pghi_seeded" if seeded else "rt_pghi_phases"
     _build.check(code, name)

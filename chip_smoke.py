@@ -33,9 +33,9 @@ have two routes, picked by n_fft alone: a shared-memory FFT
 for the syntheses of C, D, I, J, L, M, K, P, S and O) at a power of two
 from 64 to 4096, the window-folded products elsewhere; so do the log-mel
 forward and fit (A and B: E's and F's FFT instances under the taps' own
-window, the factored front end elsewhere), the representations' fit
-statistics with taps (H: H full-K's instance under the taps' own window;
-the forward G stays factored), and O's polish
+window, the factored front end elsewhere), the representations' forward
+and fit statistics with taps (G and H: G and H full-K's instances under the
+taps' own window), and O's polish
 (``gl_polish_fft_kernel``: every projection of a chunk in one launch, where
 its block holds the grid; two launches a projection elsewhere).  Phases 3 and 4f
 hold the FFT route against its plain version (within 1e-5 for R, E and F;
@@ -44,7 +44,7 @@ which come out bit-identical; A within 2e-5 and B and H with taps with their
 extrema bit-identical and sums within 1e-5, at every power of two from 64
 under hann, hamming and blackman) and against a float64 oracle at 1024, 512,
 2048 and 4096 (C, D, I, K, G, H, P, S and O's synthesis at every power of
-two from 64), the factored route at 768/192 (A, B, H), and the product
+two from 64), the factored route at 768/192 (A, B, G, H), and the product
 route at 768/256 (E, F, J, K, G, H), 768/192
 (C, D, I, K), 8192/2048 (J), 1200/300 (R, L, M, K, P, S, O's synthesis) and
 960/240 (R); the launch counters' route tally shows every main-path launch
@@ -59,7 +59,10 @@ forward).  Phase
 after each of its stages) at the main path's shape, prints each stage's
 increment beside its own floor, and holds every stage against its plain
 version; at 768/192, where A keeps the factored front end, ``s7_full`` is
-bit-identical to A and within 10 % of its time.  It shows by
+bit-identical to A and within 10 % of its time.  Phase 3 also holds the
+RT-PGHI recurrence (producer warps planning each stage of frames from the
+magnitudes, chain warps walking them) against its plain version
+at 33 to 4096 bins, fresh and seeded.  It shows by
 the launch counters that each path went through its kernels, times them, and
 prints
 
@@ -95,6 +98,10 @@ import torch
 N_FFT, HOP, SR = 1024, 256, 44100
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3, data sheet
 PEAK_FP32_FLOPS = 67e12        # H100 SXM fp32 outside the tensor cores, data sheet
+# the least latency of one step of the RT-PGHI chain, a model: a shared-memory
+# load (about 30 cycles), two dependent float adds (4 each), a named barrier
+# of the chain's warps (about 20)
+RT_STEP_CYCLES = 58
 
 
 def log(msg: str) -> None:
@@ -197,6 +204,13 @@ def path_split(att, chain, x, runs: int = 5) -> dict:
         t4 = time.perf_counter()
         rows.append((t4 - t0, t1 - t0, t2 - t1, t3 - t2))
     return {k: 1e3 * statistics.median(r[i] for r in rows) for i, k in enumerate(("wall", "fit", "build", "forward"))}
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's largest SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.splitlines()[0].strip())
 
 
 def nvidia_smi_line() -> str:
@@ -1106,7 +1120,7 @@ def stream_pghi_phase(args, dev, errs, counts, stream):
     log("  RT-PGHI stream quality: " + json.dumps(
         {k: [round(v, 6) for v in val] if isinstance(val, tuple) else round(val, 6) for k, val in quality.items()}))
     return dict(mag=main_mag, angles=main_ang, chain=h_chain, spec=spec, sc_dec_of=sc_dec_of,
-                dec_mags=dec_mags, quality=quality)
+                dec_mags=dec_mags, quality=quality, route_ms=route_ms)
 
 
 def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
@@ -1396,6 +1410,10 @@ def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
             log(f"    B={b:3d} {name:22s}: {k_ms:9.3f} ms / {g_ms:9.3f} ms ({g_ms / k_ms:.2f}x)")
     log("  pghi_gl stream quality: " + json.dumps(
         {k: [round(v, 6) for v in val] for k, val in quality.items()}))
+    pr = rt_stream["route_ms"]
+    log("  kernel route times, pghi beside pghi_gl (the same sessions, ms): " + "; ".join(
+        f"B={b} {kind} {pr[('hann pghi ' + kind, b)][0]:.3f} / {route_ms[('hann pghi_gl ' + kind, b)][0]:.3f}"
+        for b in sorted({1, 8, SB}) for kind in ("roundtrip", "decode")))
     return main
 
 
@@ -1671,6 +1689,7 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     require(got == {"fused_repr_stats:factored": 1, "fused_spectral_repr:factored": 1} and launched() == 2,
             "STFT(768, 192) + Polar: H and G must launch once each on the factored route")
     counts["fused_repr_stats:factored"] += 1
+    counts["fused_spectral_repr:factored"] += 1
     e_fit = p_chain.fit(audio)
     e_m = max(abs(getattr(p_fit[2].magnitude.norm, a).item() - getattr(e_fit[2].magnitude.norm, a).item())
               for a in ("offset", "scale")) / abs(e_fit[2].magnitude.norm.scale.item())
@@ -1936,7 +1955,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line.lower():
             log("    " + line.strip())
     for name, res in _build.kernel_resources().items():
-        if "gl_polish" in name:
+        if "gl_polish" in name or "rt_pghi" in name:
             log(f"    {name}: {res['registers']} registers, spill stores / loads {res['spill_stores']} / "
                 f"{res['spill_loads']} B")
     for tile_t in spectral.TILES:
@@ -1972,6 +1991,18 @@ def main() -> int:
                     "full-K GL shared-memory size: wrapper and source disagree")
     from acids_transforms_tpu_torch.ops.cuda import stream_step as ss
 
+    for f_s in (2, 33, 257, 513, 1025, 2049, 4096):
+        for t_c in (1, 8, 16, 22, 43):
+            st_s = ss._rt_plan(f_s, t_c)[0]
+            require(lib.att_rt_pghi_smem_bytes(f_s, st_s) == ss._rt_smem_bytes(f_s, st_s)
+                    <= ff.MAX_SMEM, "RT-PGHI shared-memory size: wrapper and source disagree")
+    # a stage beyond the kernel's limit (a chunk of 32 frames as one stage)
+    # or a block beyond 24 warps is refused before any launch
+    require(lib.att_rt_pghi_phases(None, None, None, None, None, 1, 32, 32, 513, 32, 1e-3, 1.0, 1.0, 1.0,
+                                   ss._RT_STAGE + 1, 1, 1, None) == 1
+            and lib.att_rt_pghi_phases(None, None, None, None, None, 1, 32, 32, 513, 32, 1e-3, 1.0, 1.0, 1.0,
+                                       ss._RT_STAGE, ss._RT_STAGE, ss._RT_WARPS - ss._RT_STAGE + 1, None) == 1,
+            "RT-PGHI: a stage beyond 16 frames or more than 24 warps must be refused")
     for n_fft_s, hop_s in ((N_FFT, HOP), (512, 128), (2048, 512), (4096, 1024), (1024, 128)):
         ov_s, kp, kn = n_fft_s // hop_s, ss._k_padded(n_fft_s // 2 + 1), ss._k_analysis(n_fft_s)
         for rows in (1, 7, 16, 32):
@@ -2388,18 +2419,40 @@ def main() -> int:
     # to 1e-5, the budget of channel 1 (measured: 3e-7 at n_fft 1024, 1e-6
     # at 2048 and 4096 where the factored front end adds hop-long chunk
     # products), and unweighted at bins above 1e-3 of the largest to 1e-3 rad.
-    def check_repr(name, x, n_fft, hop, wname, second, bank, weighted=False):
-        _, taps, window = front_end(wname, n_fft)
-        key = "G" if taps is not None else ("G_fk" if ff.fft_covers(n_fft) else "G_fk_product")
+    def taps_oracle_window(taps, n_fft):
+        """The cosine-sum window of ``taps`` in float64 (the oracle's)."""
+        k = torch.arange(n_fft, device=dev, dtype=torch.float64)
+        return sum((1.0 if p == 0 else 2.0) * c * torch.cos(2 * math.pi * p * k / n_fft) for p, c in enumerate(taps))
+
+    def check_repr(name, x, n_fft, hop, wname, second, bank, weighted=False, taps=None):
+        """G (with taps: the FFT route under the taps' own window wherever
+        n_fft is a power of two from 64 to 4096; the factored
+        front end elsewhere, row G_factored) or G full-K against its plain
+        version; with taps on the FFT route also against the float64 oracle
+        (torch.stft under the cosine-sum window in float64): channel 1 and
+        the |X|-weighted angle (or the IF's phase steps) within 1e-4, the
+        JAX package's budget."""
+        _, taps_w, window = front_end(wname, n_fft)
+        taps = taps_w if taps is None else taps
+        fft = spectral._repr_plan(n_fft, hop, taps, False, second, bank is not None and second != "imag")[1] > 0
+        if taps is not None:
+            key = "G" if fft else "G_factored"
+        else:
+            key = "G_fk" if fft else "G_fk_product"
+        spectral.reset_launches()
         # the IF is held before a channel-2 offset: the output's float32
         # resolution, divided by the parabolic window near its zeros, would
         # otherwise exceed the angle's own error
         aff = (0.0123, 2.345, 0.0 if second == "if" else -0.05, 1.3)
         kw = dict(mel_bank=bank, aff=aff, weighted=weighted, taps=taps, window=window)
         k1, k2 = spectral.fused_spectral_repr(x, n_fft, hop, second, **kw)
+        route = "fused_spectral_repr" + ("" if taps is not None else "_fullk") + (
+            ":fft" if fft else ":factored" if taps is not None else ":product")
+        require(spectral.routes[route] == 1 and fft == ff.fft_covers(n_fft), f"{key} {name}: not on {route}")
         p1, p2 = spectral.fused_spectral_repr_reference(x, n_fft, hop, second, **kw)
         torch.cuda.synchronize()
         label = f"{key} {name} {second}{' weighted' if weighted else ''}{'' if bank is None else ' mel'}"
+        log(f"  {label} ({route}): bit-identical to the plain version {torch.equal(k1, p1) and torch.equal(k2, p2)}")
         require(all(torch.isfinite(t).all().item() for t in (k1, k2)) and k1.shape == p1.shape
                 and k2.shape == p2.shape, f"{label}: bad output")
         e1 = rel_err(k1, p1)
@@ -2412,6 +2465,27 @@ def main() -> int:
         a16 = spectral.fused_spectral_repr(x16, n_fft, hop, second, **kw)
         a32 = spectral.fused_spectral_repr(x16.to(torch.float32) * 2.0 ** -15, n_fft, hop, second, **kw)
         require(all(torch.equal(u, v) for u, v in zip(a16, a32)), f"{label}: int16 input differs")
+        if taps is not None and fft:
+            S = torch.stft(x.double(), n_fft, hop, window=taps_oracle_window(taps, n_fft), center=True,
+                           pad_mode="reflect", return_complex=True).transpose(-2, -1)
+            if second == "imag":
+                o2 = S.imag.clone()
+                o2[..., -1] = 0.0
+                e_o = max(rel_err(k1.double(), (S.real - aff[0]) / aff[1]), rel_err(k2.double(), (o2 - aff[2]) / aff[3]))
+            else:
+                o1 = S.abs() if bank is None else torch.matmul(S.abs(), bank.double())
+                o1 = (torch.log1p(o1) - aff[0]) / aff[1]
+                ang = torch.angle(S)
+                ang[..., -1] = torch.where(S.real[..., -1] < 0, math.pi, 0.0)
+                o2 = ang if second == "phase" else spectral._if_rows(ang, weighted)
+                wo = S.abs() / S.abs().amax(dim=(-2, -1), keepdim=True)
+                if second == "if":
+                    wo[:, 1:] = torch.minimum(wo[:, 1:], wo[:, :-1])
+                e_a = (angle_error(second, k2, (o2 - aff[2]) / aff[3], aff[3], weighted) * wo).max().item()
+                e_o = max(rel_err(k1.double(), o1), e_a)
+            log(f"    {label}: vs the float64 oracle {e_o:.3e} (tol 1e-04)")
+            require(e_o <= 1e-4, f"{label}: off the float64 oracle")
+            del S
         errs[key] = max(errs.get(key, 0.0), abs_err(k1, p1))
         del k1, k2, p1, p2, wt
 
@@ -2517,6 +2591,9 @@ def main() -> int:
             check_stats(label, small, n_fft, hop_s, wname, taps_s)
             for second in ("phase", "if", "imag"):
                 check_repr_stats(label, small, n_fft, hop_s, wname, second, weighted=second == "if", taps=taps_s)
+                check_repr(label, small, n_fft, hop_s, wname, second, None if second == "imag" else bank_s,
+                           weighted=second == "if", taps=taps_s)
+            check_repr(label, small, n_fft, hop_s, wname, "phase", None, taps=taps_s)
         check_forward(f"{n_fft}/{hop_s} hann", small, n_fft, hop_s, "hann", bank_s, 0.05, 1.3, power=2.0,
                       contrast="none", taps=(0.5, -0.25))
 
@@ -2594,6 +2671,66 @@ def main() -> int:
                 and not spectral.routes["fused_repr_stats_fullk:fft"], "G / H full-K at 768/256: not on the product route")
     spectral.reset_launches()
     torch.cuda.empty_cache()
+
+    # RT and RTs: the RT-PGHI recurrence (csrc/pghi.cu:rt_pghi_phases_kernel,
+    # producer warps planning each stage of frames from the magnitudes, chain
+    # warps walking them) against its plain version (the same float32
+    # operations in the same order: expected bit-identical) on synthetic
+    # sessions of 8 streams (ridges drifting in frequency over noise, a tenth
+    # of the frames near-silent, which the onset rule seeds, and in the fresh
+    # sessions an all-silent chunk), at 33, 513, 1025, 2049 and 4096 bins
+    # (the plans' stages: whole chunks, 8, 4 and 1 frames), fresh (4 chunks)
+    # and seeded (one chunk after a carried history).  Tolerance: |X| (cos,
+    # sin)(phase) within 1e-4 of the largest |X|, the recurrence's gate on
+    # the main path (phase 4g); bit identity is logged.
+    def rt_session(n, T, n_bins, seed, silent=None):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        t = torch.arange(T, device=dev, dtype=torch.float32)[:, None]
+        k = torch.arange(n_bins, device=dev, dtype=torch.float32)[None, :]
+        m = 1e-3 * torch.rand((n, T, n_bins), generator=g, device=dev)
+        for b in range(n):
+            for c, w, a in (torch.rand((6, 3), generator=g, device=dev).cpu() * torch.tensor([n_bins - 4.0, 3.0, 0.8])
+                            + torch.tensor([2.0, 1.0, 0.2])).tolist():
+                m[b] += a * torch.exp(-0.5 * ((k - c - 0.05 * t) / w) ** 2)
+        m = torch.where(torch.rand((n, T, 1), generator=g, device=dev) < 0.1, 1e-6 * m, m)
+        if silent is not None:
+            m[:, silent[0]: silent[1]] = 0.0
+        return m.contiguous()
+
+    def check_rt(n_bins, T_c, seeded, n=8):
+        n_fft_r = 2 * (n_bins - 1)
+        hop_r = n_fft_r // 4 if n_fft_r % 4 == 0 else n_fft_r // 2
+        gamma_r = 0.25645 * n_fft_r * n_fft_r
+        T = T_c if seeded else 4 * T_c
+        seed = 300 + n_bins + T_c
+        mag = rt_session(n, T, n_bins, seed, None if seeded else (2 * T_c, 3 * T_c))
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        ang = 2 * math.pi * torch.rand((n, T + 3, n_bins), generator=g, device=dev)
+        prev = pp = None
+        if seeded:
+            prev = rt_session(n, 2, n_bins, seed + 2)
+            pp = (2 * torch.rand((n, n_bins), generator=g, device=dev) - 1) * math.pi
+        r_args = (gamma_r, n_fft_r, hop_r, 1e-2, T_c)
+        ss.reset_launches()
+        ph_k = ss.rt_pghi_phases(mag, ang, *r_args, prev_mag=prev, prev_phase=pp)
+        name = "rt_pghi_seeded" if seeded else "rt_pghi_phases"
+        require(ss.launches[name] == 1 and sum(ss.launches.values()) == 1, f"RT {n_bins} bins: no launch")
+        ph_p = ss.rt_pghi_phases_reference(mag, ang, *r_args, prev_mag=prev, prev_phase=pp)
+        torch.cuda.synchronize()
+        e = (unit_spec(mag, ph_k) - unit_spec(mag, ph_p)).abs().max().item()
+        same = torch.equal(ph_k, ph_p)
+        key = "RTs" if seeded else "RT"
+        log(f"  {key} {n_bins} bins, chunks of {T_c}, {n} x {T} frames, plan {ss._rt_plan(n_bins, T_c)}: "
+            f"|X| (cos, sin)(phase) off by {e:.3e} of the largest (tol 1e-04); bit-identical {same} "
+            f"({100 * (ph_k != ph_p).float().mean().item():.4f}% of bins differ)")
+        require(torch.isfinite(ph_k).all().item() and ph_k.shape == ph_p.shape and e <= 1e-4,
+                f"{key} {n_bins} bins: the recurrence disagrees with its plain version")
+        errs[key] = max(errs.get(key, 0.0), e)
+
+    for n_bins, T_c, T_s in ((33, 8, 12), (513, 16, 22), (1025, 16, 22), (2049, 16, 10), (4096, 2, 3)):
+        check_rt(n_bins, T_c, False)
+        check_rt(n_bins, T_s, True)
+    ss.reset_launches()
 
     # I: the projection alone.  It is the step kernel without its momentum
     # update, so it must equal C's projection from tprev = 0 bit for bit;
@@ -3013,11 +3150,17 @@ def main() -> int:
     require(p_counts["fused_repr_stats"] == 1 and p_counts["fused_spectral_repr"] == 1
             and sum(p_counts.values()) == 2, "STFT + Polar: expected one H and one G launch")
     log(f"  H and G by route: { {k: v for k, v in spectral.routes.items() if v} }")
-    require(spectral.routes["fused_repr_stats:fft"] == 1 and spectral.routes["fused_spectral_repr:factored"] == 1,
-            "STFT + Polar: the fit (H) must take the FFT route and the forward (G) the factored one")
+    require(spectral.routes["fused_repr_stats:fft"] == 1 and spectral.routes["fused_spectral_repr:fft"] == 1,
+            "STFT + Polar: the fit (H) and the forward (G) must take the FFT route")
     counts.update({k: p_counts[k] for k in ("fused_repr_stats", "fused_spectral_repr")})
     counts["fused_repr_stats:fft"] = spectral.routes["fused_repr_stats:fft"]
+    counts["fused_spectral_repr:fft"] = spectral.routes["fused_spectral_repr:fft"]
     counts["fused_repr_stats:factored"] = 0      # the factored route's launches: phase 4h
+    counts["fused_spectral_repr:factored"] = 0
+    y_pb = att.fuse_forward(p_fit, out_dtype=torch.bfloat16)(audio)
+    require(torch.equal(y_pb, y_p.to(torch.bfloat16)), "STFT + Polar: the bf16 forward is not the rounded f32")
+    log("  the bf16 forward bit-equal to the rounded float32 one")
+    del y_pb
     sp_p = path_split(att, p_chain, audio)
     log(f"  fit + forward, median of 5 runs: {sp_p['wall']:.2f} ms to the card's end; the host returns from the "
         f"fit after {sp_p['fit']:.2f} ms, from building the forward after {sp_p['build']:.2f}, from calling it "
@@ -3477,9 +3620,9 @@ def main() -> int:
     # epilogue per bin; H writes (n_blocks, 8, F) partials, a block a tile,
     # that a second kernel reads back (not the function's bytes: their
     # traffic at the peak rate is modelled and printed in the log line, kept
-    # out of the row).  H with taps takes the same route (Polar: no halo).
-    # Their product rows at 768/256 on the same clips (phase 4h's launches),
-    # H's factored row at 768/192.
+    # out of the row).  G and H with taps take the same route (Polar: no
+    # halo).  Their product rows at 768/256 on the same clips (phase 4h's
+    # launches), G's and H's factored rows at 768/192.
     g_tile, _ = spectral._repr_plan(N_FFT, HOP, None, False, "if", True)
     g_frames = B * -(-Tn // g_tile) * (g_tile + 2)
 
@@ -3498,6 +3641,19 @@ def main() -> int:
     def lib_stats_polar_g():
         return lib_repr_stats(torch.stft(mono, n_fft_g, hop_g, window=w_g, center=True, pad_mode="reflect",
                                          return_complex=True).transpose(-2, -1), "phase")
+
+    # G's factored route at 768/192 (phase 4h's STFT(768, 192) + Polar
+    # forward), with the square bipolar bank of that size and Polar's affine
+    bank_gg = T.Magnitude(mode="bipolar", contrast="log1p", mel=True, n_fft=n_fft_g).mel_bank
+    nnz_gg = int((bank_gg != 0).sum().item())
+    kw_gg = dict(kw_g, mel_bank=bank_gg, taps=taps_g)
+    g_need_g = fft_g + B * Tg * (n_fft_g + 7.0 * Fg + 2.0 * nnz_gg + 22.0 * Fg)
+
+    def lib_polar_g():
+        S = torch.stft(mono, n_fft_g, hop_g, window=w_g, center=True, pad_mode="reflect",
+                       return_complex=True).transpose(-2, -1)
+        y1 = (torch.log1p(torch.matmul(S.abs(), bank_gg)) - aff_p[0]) / aff_p[1]
+        return y1, (torch.angle(S) - aff_p[2]) / aff_p[3]
     bank_rp = T.Magnitude(mode="bipolar", n_fft=n_fft_p).mel_bank
     nnz_rp = int((bank_rp != 0).sum().item())
     kw_gkp = dict(kw_gk, mel_bank=bank_rp, window=w_p)
@@ -3572,13 +3728,20 @@ def main() -> int:
 
     spectral_src = "acids_transforms_tpu_torch/csrc/spectral.cu"
     specs += [
-        dict(key="G", name="fused_spectral_repr", source=spectral_src,
-             replaces="acids_transforms_tpu/ops/pallas/spectral.py:869",
-             launches=counts["fused_spectral_repr"],
+        dict(key="G", name="fused_spectral_repr", source=spectral_src + " (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:869", front_end="fft",
+             launches=counts["fused_spectral_repr:fft"],
              run=lambda: spectral.fused_spectral_repr(mono, N_FFT, HOP, "phase", **kw_g),
              plain=lambda: spectral.fused_spectral_repr_reference(mono, N_FFT, HOP, "phase", **kw_g),
              library=lib_polar, bound=bound_of(4.0 * B * L + 8.0 * n_el, g_need),
-             ceiling=ceiling_of(chunk_flops + combine_flops + 2.0 * B * Tn * nnz_r + 30.0 * n_el)),
+             ceiling=ceiling_of(fft_design_flops(N_FFT, B * Tn) + 2.0 * B * Tn * nnz_r + 30.0 * n_el)),
+        dict(key="G_factored", name="fused_spectral_repr_factored", source=spectral_src,
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:869", front_end="factored",
+             launches=counts["fused_spectral_repr:factored"],
+             run=lambda: spectral.fused_spectral_repr(mono, n_fft_g, hop_g, "phase", **kw_gg),
+             plain=lambda: spectral.fused_spectral_repr_reference(mono, n_fft_g, hop_g, "phase", **kw_gg),
+             library=lib_polar_g, bound=bound_of(4.0 * B * L + 8.0 * el_g, g_need_g),
+             ceiling=ceiling_of(factored_g + 2.0 * B * Tg * nnz_gg + 30.0 * el_g)),
         dict(key="G_fk", name="fused_spectral_repr_fullk", source=spectral_src + " (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:851", front_end="fft",
              launches=counts["fused_spectral_repr_fullk:fft"],
@@ -3813,7 +3976,11 @@ def main() -> int:
     # bound R's less half the output bytes plus 4 operations per bin.  The
     # recurrence, as K's: magnitudes read, phases written, the silent bins'
     # angles read (this run's share), some 150 operations per bin; no library
-    # call computes it.  S: the spectrum read, the audio written, one inverse
+    # call computes it.  Its chain's floor (logged, a model): the serial
+    # steps (a frame each, and a re-wrap at each chunk boundary) times the
+    # least latency of one (a shared-memory load of phi[src], two dependent
+    # float adds, a named barrier: RT_STEP_CYCLES) at the card's largest SM
+    # clock.  S: the spectrum read, the audio written, one inverse
     # FFT, the window and the overlap-add per frame, P's synthesis product;
     # yardstick irfft x window + fold, as P's.
     rt_mag, rt_ang, h_chain, rt_spec = (rt_stream[k] for k in ("mag", "angles", "chain", "spec"))
@@ -4043,6 +4210,10 @@ def main() -> int:
     ]
     log(f"  RT-PGHI recurrence: {100 * rt_silent:.1f}% of the bins silent (angles read there); seeded, one "
         f"chunk: {100 * s_silent:.1f}%")
+    sm_mhz = max_sm_clock_mhz()
+    for key, n_steps in (("RT", rt_mag.shape[1] + rt_mag.shape[1] // (STREAM_CHUNK // HOP) - 1), ("RTs", s_tt)):
+        log(f"  {key} chain floor (model): {n_steps} serial steps x {RT_STEP_CYCLES} cycles at {sm_mhz} MHz = "
+            f"{1e3 * n_steps * RT_STEP_CYCLES / (sm_mhz * 1e6):.4f} ms")
     kernels = []
     for s in specs:
         # turns: plain, kernel, plain; each time is the card's per call in

@@ -198,5 +198,6 @@ def test_no_route_counted_on_the_cpu():
                               "fused_repr_stats_fullk:fft", "fused_repr_stats_fullk:product",
                               "fused_melspec:fft", "fused_melspec:factored",
                               "fused_melspec_stats:fft", "fused_melspec_stats:factored",
-                              "fused_spectral_repr:factored", "fused_repr_stats:fft", "fused_repr_stats:factored"}
+                              "fused_spectral_repr:fft", "fused_spectral_repr:factored",
+                              "fused_repr_stats:fft", "fused_repr_stats:factored"}
 
