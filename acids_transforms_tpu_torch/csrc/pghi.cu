@@ -2,13 +2,14 @@
 // inverse DFT with overlap-add, for Hopper (sm_90a).
 //
 // Replaces, from the JAX package's ops/pallas/pghi_kernel.py:
-//   pghi_phases_kernel      <- _pghi_invert_kernel, recurrence part (emit_phases, bidir)
+//   pghi_plan_kernel + pghi_walk_kernel
+//                           <- _pghi_invert_kernel, recurrence part (emit_phases, bidir)
 //   pghi_synthesize_fft_kernel, pghi_synthesize_kernel
 //                           <- _pghi_invert_kernel, synthesis part (phases_in), with
 //                              ops/pallas/ola.py:ola_accumulate: the FFT route
 //                              (fft_smem.cuh:frames_irfft) where n_fft is a power of
 //                              two from 64 to 4096, the product route elsewhere
-// pghi_invert_fused is the first followed by the second.  And from
+// pghi_invert_fused is the recurrence followed by the synthesis.  And from
 // ops/pallas/stream_step.py:
 //   rt_pghi_phases_kernel   <- _rt_pghi_phases, the recurrence of the streaming
 //                              sessions _session_pghi_kernel (N),
@@ -16,42 +17,64 @@
 //                              _session_pghi_gl_kernel (O); their analysis and
 //                              synthesis are kernels of stream_step.cu
 //
-// What bounds them on this card.  The recurrence is bound by latency, not by
-// bytes or operations: per frame a clip does a few operations on F values, but
-// frame t needs frame t - 1, so a clip is one chain of T dependent steps.  The
-// function as a whole (magnitudes and angles read once, audio written once,
-// against an inverse FFT's operations) is bound by bytes.  The synthesis on
-// the FFT route does an inverse FFT's operations a frame; on the product
-// route it keeps the product form of the kernel it replaces, 2F * n_fft
-// multiply-adds per frame (1.05 M at n_fft 1024, 41 times the FFT's), so that
-// route's own ceiling is the card's fp32 FMA rate.
+// What bounds them on this card.  The recurrence as a function is bound by
+// bytes (magnitudes read, phases written, the silent bins' angles read), but
+// frame t needs frame t - 1, so a clip is one chain of T dependent steps and
+// latency bounds whatever part of the work stays on that chain.  The
+// synthesis on the FFT route does an inverse FFT's operations a frame; on the
+// product route it keeps the product form of the kernel it replaces, 2F *
+// n_fft multiply-adds per frame (1.05 M at n_fft 1024, 41 times the FFT's),
+// so that route's own ceiling is the card's fp32 FMA rate.
 //
-// Design.  Two kernels, because the two halves want opposite shapes: the
-// recurrence is serial in time and independent across clips, so one thread
-// block walks one clip (one chain of a clip for `bidir`), all of them in
-// flight at once; the synthesis has no dependency and is cut into clip x
-// frame-tile blocks that fill the card.  The phases go through device memory
-// in between (one array of the spectrogram's size, written and read once).
+// Design of the recurrences: the fill.  Almost nothing in a frame of the
+// recurrence needs the previous frame's phases: the threshold, the
+// logarithms, the gradients, the anchors (peak rule, or the onset rule in a
+// frame without a peak anchor), each bin's nearest anchor on either side
+// with the tie rule (below wins), and the segment sums of the frequency
+// steps from an anchor come from magnitudes alone.  Only phi_{t-1}[anchor] + ct is carried.  So both
+// recurrences plan each frame apart from the chain (pghi_plan_frame, one
+// warp a frame: two segmented scans over 128-bin tiles, 4 bins a lane,
+// Kogge-Stone over the lanes and the tiles' carry, a head restarting the
+// sum) and walk the frames with a gather and an add or two a bin.  The
+// segment sums are local (no cancellation between numbers of the phases'
+// size).  Phases are not wrapped (that would be another result), so every
+// addition is written with __fadd_rn and friends: the compiler may not
+// contract or reorder them, and the plain PyTorch versions repeat them in
+// the same order.  logf / sincosf are the full-range functions; this file
+// must not be built with --use_fast_math.
 //
-// Recurrence: a thread owns kBPT adjacent bins and keeps their phase carry in
-// registers.  Per step it reads the previous, current and next frame's
-// magnitude, takes the logarithms, the gradients, the anchor mask and, for a
-// frame without an anchor, the frame maximum; then the fill runs as two
-// segmented scans of affine maps x -> a x + b (a = 0 at anchors resets the
-// chain; a second channel counts the distance to the anchor), one upward and
-// one downward: head-flagged Kogge-Stone by warp shuffles inside a warp, the
-// warps' totals through shared memory, again by shuffles.  The form is kept
-// because a prefix sum of the steps minus its value at the nearest anchor
-// cancels two numbers of size pi * F.  Phases are not wrapped (that would be
-// another result), so every addition on them is written with __fadd_rn and
-// friends: the compiler may not contract or reorder them, and the plain
-// PyTorch version repeats them in the same order.  logf / sincosf are the
-// full-range functions; this file must not be built with --use_fast_math.
+// Offline (K's recurrence): two launches.  All frames and the clip's
+// threshold are known at launch, so the plan needs no chain at all:
+// pghi_plan_kernel runs it over every frame of every clip at once, a block a
+// tile of up to 4 consecutive frames of one clip (their magnitudes and those
+// of one halo frame on each side brought by one bulk copy, each logf taken
+// once), a warp a frame for the frame's time stencil (central: (Y[t+1] -
+// Y[t-1]) / 2, the edge replicated, the sign flipped on bidir's backward
+// chain) and the fill's scans.  It writes per bin its source (int16, -1 for
+// a constant) and one float, off = ct[src] + seg (the constant, the angle of
+// a silent bin or 0 in a frame without an anchor, where src < 0), into a
+// (B, T, Fp) plan, Fp = F rounded up to 8.  pghi_walk_kernel is the chain,
+// one block a chain: phi_t[k] = phi_{t-1}[src] + off, one shared-memory
+// gather and one add a bin, the two phase rows double-buffered in shared
+// memory, one barrier a frame; side warps bring the plan's rows four frames
+// a bulk copy into a ring of 16 (8 above 2232 bins), so no load on the chain
+// waits on device memory, and write the finished rows out.  off is added
+// once to the anchor's phase: one rounding at the phase's size (the kernel
+// before this design added phi + ct at the leaf of a Kogge-Stone tree of
+// affine maps, then the steps).  Measured on the card (PERF.md section 6):
+// the walk takes about as long at 8 clips as at 128, so the latency of its
+// steps bounds it, not bytes; the plan is bound by the issue of its passes
+// (logarithms, stencil, scans, plan row) at 16 warps an SM.  Bulk copies of
+// 4 rows, 4-frame tiles and the angles read only at the silent bins were
+// each timed faster than the alternatives tried.
 //
-// bidir: chain 0 walks frames mid .. T - 1, chain 1 walks mid - 1 .. 0 with
-// the sign of the time trapezoid and of the time derivative flipped.  Chain 1
-// first repeats chain 0's seed step (frame mid with its true neighbours), so
-// its carry is the seed phase without any exchange between blocks.
+// bidir: the plan takes frames t >= T / 2 in the forward orientation
+// (previous frame t - 1, next min(t + 1, T - 1), sign +1) and frames t < T /
+// 2 in the backward one (previous t + 1, next max(t - 1, 0), sign -1); chain
+// 0 walks mid .. T - 1, chain 1 first repeats chain 0's seed step at mid
+// (the same plan row, unstored), so its carry is the seed phase without any
+// exchange between blocks, then walks mid - 1 .. 0.  Causal: frame -1 is the
+// zero frame.
 //
 // Streaming (RT-PGHI, rt_pghi_phases_kernel): the same fill per frame with
 // the causal time stencil (3 Y[t] - 4 Y[t-1] + Y[t-2]) / 2 and, per chunk of
@@ -63,36 +86,26 @@
 // the whole session.  Seeded, the kernel starts from a carried history
 // instead of two zero frames: the pghi_gl sessions (stream_step.cu) run it
 // one chunk at a time, since each chunk's seed starts from the previous
-// chunk's polished phases.
-//
-// Almost nothing in a frame's fill needs the previous frame's phases: the
-// threshold, the logarithms, the gradients, the anchors and the onset rule,
-// the distances to the nearest anchor on each side and the tie rule, and the
-// segment sums of the frequency steps from an anchor come from magnitudes
-// alone.  So the fill is split, and one block walks one session with two
-// kinds of warps.  Producer warps plan a stage of frames (up to 16, within a
-// chunk) at a time, all together: the next chunk's threshold a stage ahead
-// (which also brings it into L2), the stage's angles by cp.async into a
-// stage buffer, the logarithms and the bins' flags, ct and the frequency
+// chunk's polished phases.  A session's frames are not all known at launch
+// in a streaming call's shape (one block a session, a chunk's threshold
+// known a stage ahead), so one block walks one session with two kinds of
+// warps.  Producer warps plan a stage of frames (up to 16, within a chunk)
+// at a time, all together: the next chunk's threshold a stage ahead (which
+// also brings it into L2), the stage's angles by cp.async into a stage
+// buffer, the logarithms and the bins' flags, ct and the frequency
 // derivatives, each lanes on consecutive bins; then a frame a warp
-// (rt_plan_frame) two segmented scans over 128-bin tiles (4 bins a lane,
-// Kogge-Stone over the lanes, the tiles' carry; a head restarts the sum)
-// give every bin its source (itself at an anchor, the nearest anchor below
-// or above, or none) and the segment sum from it (or the constant: 0 in a
-// frame without an anchor, the angle of a silent bin).  The chain warps walk
-// the frames: phi_t[k] = (phi_{t-1}[src] + ct[src]) + seg[k], one gather
-// from a shared-memory phase row, two adds and a store, and one barrier of
-// the chain's warps a frame; they read nothing from device memory.  Two
-// stage buffers (they fit with one frame up to 4096 bins) let the producers
-// plan stage s + 1 while the chain walks stage s.  Measured on the
-// card at 64 sessions x 688 frames x 513 bins (chip_smoke.py phase 5): the
-// chain is hidden behind the producers, which bound the kernel; one buffer
-// (no overlap) and stages of 8 are slower, and a seeded 22-frame chunk is
-// faster as two stages of 11 than as one of 22 (PERF.md section 6).  The
-// segment sums are local (no cancellation between numbers of the phases'
-// size), added to the anchor's phi + ct once; the plain version
-// (ops/cuda/stream_step.py: rt_fill_plan, rt_pghi_phases_reference) repeats
-// the order of every float32 operation.
+// (pghi_plan_frame).  The chain warps walk the frames: phi_t[k] =
+// (phi_{t-1}[src] + ct[src]) + seg[k], one gather from a shared-memory phase
+// row, two adds and a store, and one barrier of the chain's warps a frame;
+// they read nothing from device memory.  Two stage buffers (they fit with
+// one frame up to 4096 bins) let the producers plan stage s + 1 while the
+// chain walks stage s.  Measured on the card at 64 sessions x 688 frames x
+// 513 bins (chip_smoke.py phase 5): the chain is hidden behind the
+// producers, which bound the kernel; one buffer (no overlap) and stages of 8
+// are slower, and a seeded 22-frame chunk is faster as two stages of 11 than
+// as one of 22 (PERF.md section 6).  The plain version (ops/cuda/
+// stream_step.py: rt_fill_plan, rt_pghi_phases_reference) repeats the order
+// of every float32 operation.
 //
 // Synthesis, FFT route (pghi_synthesize_fft_kernel): a block owns R output
 // chunks of one clip (R a multiple of 2 overlap) and runs fft_smem.cuh:
@@ -123,328 +136,14 @@ namespace att {
 constexpr float kPghiEps = 1.19e-7f;
 constexpr float kPiF = 3.14159265358979323846f;
 
-struct Affine {
-    float a, b, d;
-};
+// ---------------------------------------------------------------- the fill
+constexpr int kFillE = 4;                 // bins a lane owns in a tile of the fill's scans
+constexpr int kFillTile = 32 * kFillE;    // bins one warp's scan covers at a time
+constexpr int kFillNone = 8192;           // "no anchor on this side" (more than any distance)
+constexpr short kFillSig = 1, kFillAnchor = 2;  // a bin's flags in the source row while it is planned
 
-// Apply `l` (earlier) then `r`.  a is 0 or 1, so the products are exact and
-// each channel costs one rounding.
-__device__ __forceinline__ Affine compose(const Affine& l, const Affine& r) {
-    Affine o;
-    o.a = __fmul_rn(l.a, r.a);
-    o.b = __fadd_rn(__fmul_rn(l.b, r.a), r.b);
-    o.d = __fadd_rn(__fmul_rn(l.d, r.a), r.d);
-    return o;
-}
-
-__device__ __forceinline__ Affine identity_map() {
-    Affine o;
-    o.a = 1.0f;
-    o.b = 0.0f;
-    o.d = 0.0f;
-    return o;
-}
-
-// Value of lane `lane - delta` (kUp) or `lane + delta` (down), identity outside the warp.
-template <bool kUp>
-__device__ __forceinline__ Affine shift_lanes(const Affine& x, int delta, int lane) {
-    Affine o;
-    if (kUp) {
-        o.a = __shfl_up_sync(0xffffffffu, x.a, delta);
-        o.b = __shfl_up_sync(0xffffffffu, x.b, delta);
-        o.d = __shfl_up_sync(0xffffffffu, x.d, delta);
-        if (lane < delta) o = identity_map();
-    } else {
-        o.a = __shfl_down_sync(0xffffffffu, x.a, delta);
-        o.b = __shfl_down_sync(0xffffffffu, x.b, delta);
-        o.d = __shfl_down_sync(0xffffffffu, x.d, delta);
-        if (lane + delta > 31) o = identity_map();
-    }
-    return o;
-}
-
-// Inclusive Kogge-Stone over the lanes of a warp, towards higher (kUp) or lower lanes.
-template <bool kUp>
-__device__ __forceinline__ Affine warp_scan(Affine x, int lane) {
-#pragma unroll
-    for (int s = 1; s < 32; s <<= 1) {
-        Affine p = shift_lanes<kUp>(x, s, lane);
-        x = compose(p, x);
-    }
-    return x;
-}
-
-// Block-wide inclusive segmented scan of e[0..kBPT) per thread, in bin order
-// (kUp) or against it.  Order of the compositions, which the plain version
-// repeats: inside the thread, then over the lanes' totals, then over the
-// warps' totals; the result is compose(compose(warps before, lanes before),
-// own prefix).  `totals` holds 32 Affine values of shared memory; the call
-// contains one __syncthreads().
-template <int kBPT, bool kUp>
-__device__ __forceinline__ void block_scan(Affine (&e)[kBPT], Affine* totals, int lane, int warp,
-                                           int n_warps) {
-    if (kUp) {
-#pragma unroll
-        for (int j = 1; j < kBPT; ++j) e[j] = compose(e[j - 1], e[j]);
-    } else {
-#pragma unroll
-        for (int j = kBPT - 2; j >= 0; --j) e[j] = compose(e[j + 1], e[j]);
-    }
-    const Affine incl = warp_scan<kUp>(kUp ? e[kBPT - 1] : e[0], lane);
-    if (lane == (kUp ? 31 : 0)) totals[warp] = incl;
-    __syncthreads();
-    // every warp scans the totals itself: lane l holds the l-th warp in scan order
-    const int src = kUp ? lane : n_warps - 1 - lane;
-    Affine wt = (lane < n_warps) ? totals[src] : identity_map();
-    wt = warp_scan<true>(wt, lane);
-    const int pos = kUp ? warp : n_warps - 1 - warp;  // this warp's place in scan order
-    Affine wprev;
-    wprev.a = __shfl_sync(0xffffffffu, wt.a, pos > 0 ? pos - 1 : 0);
-    wprev.b = __shfl_sync(0xffffffffu, wt.b, pos > 0 ? pos - 1 : 0);
-    wprev.d = __shfl_sync(0xffffffffu, wt.d, pos > 0 ? pos - 1 : 0);
-    if (pos == 0) wprev = identity_map();
-    const Affine lprev = shift_lanes<kUp>(incl, 1, lane);
-    const Affine before = compose(wprev, lprev);
-#pragma unroll
-    for (int j = 0; j < kBPT; ++j) e[j] = compose(before, e[j]);
-}
-
-struct PghiArgs {
-    const float* mag;     // (B, T, F)
-    const float* angles;  // (B, T, F) phases of the silent bins
-    const float* abstol;  // (B,)
-    float* phases;        // (B, T, F) out
-    int T, F, bidir;
-    float fmul;     // gamma / (hop n_fft)
-    float inv_fmul; // 1 / fmul: the time step multiplies by it
-    float carrier;  // 2 pi hop / n_fft
-};
-
-// Shared memory: 4 rows of n_pad floats (log-magnitude of the previous and
-// the current frame, the current magnitude, the frequency step), then the
-// warps' maxima (32 floats) and the scans' totals (2 x 32 Affine).
-__host__ __device__ inline size_t pghi_phases_smem_bytes(int n_pad) {
-    return sizeof(float) * (4 * (size_t)n_pad + 32) + 2 * 32 * sizeof(Affine);
-}
-
-template <int kBPT>
-__global__ void __launch_bounds__(1024) pghi_phases_kernel(PghiArgs p) {
-    extern __shared__ __align__(16) float smem[];
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int n_warps = blockDim.x >> 5;
-    const int n_pad = blockDim.x * kBPT;
-    const int T = p.T, F = p.F;
-
-    float* sYp = smem;
-    float* sYc = sYp + n_pad;
-    float* sM = sYc + n_pad;
-    float* sFs = sM + n_pad;
-    float* sWmax = sFs + n_pad;
-    Affine* tot_up = reinterpret_cast<Affine*>(sWmax + 32);
-    Affine* tot_dn = tot_up + 32;
-
-    const int chain = p.bidir ? (int)(blockIdx.x & 1) : 0;
-    const long long b = p.bidir ? (long long)(blockIdx.x >> 1) : (long long)blockIdx.x;
-    const float* mag = p.mag + (size_t)b * T * F;
-    const float* ang = p.angles + (size_t)b * T * F;
-    float* out = p.phases + (size_t)b * T * F;
-    const float abstol = p.abstol[b];
-    const int mid = T / 2;
-    const int n_steps = !p.bidir ? T : (chain == 0 ? T - mid : mid + 1);
-    const float big = (float)(10 * F);
-
-    float phi[kBPT];
-#pragma unroll
-    for (int j = 0; j < kBPT; ++j) phi[j] = 0.0f;
-
-    for (int s = 0; s < n_steps; ++s) {
-        // frames of this step: previous, current, next in walking order
-        int fp, fc, fn;
-        float sgn = 1.0f;
-        bool store = true;
-        if (!p.bidir) {
-            fc = s;
-            fp = s - 1;  // -1: the all-zero frame before the clip
-            fn = min(s + 1, T - 1);
-        } else if (chain == 0 || s == 0) {
-            fc = mid + s;
-            fp = fc - 1;
-            fn = min(fc + 1, T - 1);
-            store = chain == 0;  // chain 1 only repeats the seed step
-        } else {
-            fc = mid - s;
-            fp = fc + 1;
-            fn = max(fc - 1, 0);
-            sgn = -1.0f;
-        }
-
-        float mp[kBPT], mc[kBPT], fs[kBPT];
-        float wmax = -1.0f;
-#pragma unroll
-        for (int j = 0; j < kBPT; ++j) {
-            const int k = tid * kBPT + j;
-            float vp = 0.0f, vc = 0.0f, vn = 0.0f;
-            if (k < F) {
-                if (fp >= 0) vp = __ldg(mag + (size_t)fp * F + k);
-                vc = __ldg(mag + (size_t)fc * F + k);
-                vn = __ldg(mag + (size_t)fn * F + k);
-                wmax = fmaxf(wmax, vc);
-            }
-            const float yp = logf(fmaxf(vp, kPghiEps));
-            const float yc = logf(fmaxf(vc, kPghiEps));
-            const float yn = logf(fmaxf(vn, kPghiEps));
-            const float dydt = __fmul_rn(__fsub_rn(yn, yp), 0.5f);
-            mp[j] = vp;
-            mc[j] = vc;
-            fs[j] = __fadd_rn(__fmul_rn(sgn, __fmul_rn(-p.fmul, dydt)), kPiF);
-            sYp[k] = yp;
-            sYc[k] = yc;
-            sM[k] = vc;
-            sFs[k] = fs[j];
-        }
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) wmax = fmaxf(wmax, __shfl_xor_sync(0xffffffffu, wmax, o));
-        if (lane == 0) sWmax[warp] = wmax;
-        __syncthreads();
-
-        Affine up[kBPT], dn[kBPT];
-        float phit[kBPT];
-        bool anch[kBPT], sig[kBPT];
-        int any_local = 0;
-#pragma unroll
-        for (int j = 0; j < kBPT; ++j) {
-            const int k = tid * kBPT + j;
-            anch[j] = false;
-            sig[j] = false;
-            phit[j] = 0.0f;
-            up[j] = identity_map();
-            dn[j] = identity_map();
-            if (k < F) {
-                const int kd = k > 0 ? k - 1 : 0, ku = k < F - 1 ? k + 1 : F - 1;
-                const float ck = __fmul_rn(p.carrier, (float)k);
-                const float tsp = __fadd_rn(
-                    __fmul_rn(__fmul_rn(__fsub_rn(sYp[ku], sYp[kd]), 0.5f), p.inv_fmul), ck);
-                const float tsc = __fadd_rn(
-                    __fmul_rn(__fmul_rn(__fsub_rn(sYc[ku], sYc[kd]), 0.5f), p.inv_fmul), ck);
-                const float ct = __fmul_rn(sgn, __fmul_rn(__fadd_rn(tsp, tsc), 0.5f));
-                phit[j] = __fadd_rn(phi[j], ct);
-                // trapezoid steps of the fill, from below and from above
-                up[j].b = k == 0 ? 0.0f : __fmul_rn(__fadd_rn(fs[j], sFs[k - 1]), 0.5f);
-                dn[j].b = k == F - 1 ? 0.0f : -__fmul_rn(__fadd_rn(fs[j], sFs[k + 1]), 0.5f);
-                sig[j] = mc[j] > abstol;
-                const float m_dn = k == 0 ? -1.0f : sM[k - 1];
-                const float m_up = k == F - 1 ? -1.0f : sM[k + 1];
-                anch[j] = sig[j] && mp[j] > abstol && mc[j] >= m_dn && mc[j] >= m_up;
-                any_local |= anch[j] ? 1 : 0;
-            }
-        }
-        int any_anchor = __syncthreads_or(any_local);
-        if (!any_anchor) {
-            // onset: every audible bin equal to the frame maximum seeds
-            float fmax_ = -1.0f;
-            for (int w = 0; w < n_warps; ++w) fmax_ = fmaxf(fmax_, sWmax[w]);
-            any_local = 0;
-#pragma unroll
-            for (int j = 0; j < kBPT; ++j) {
-                const int k = tid * kBPT + j;
-                anch[j] = k < F && sig[j] && mc[j] == fmax_;
-                any_local |= anch[j] ? 1 : 0;
-            }
-            any_anchor = __syncthreads_or(any_local);
-        }
-#pragma unroll
-        for (int j = 0; j < kBPT; ++j) {
-            const int k = tid * kBPT + j;
-            if (k < F) {
-                const float a0 = anch[j] ? 0.0f : 1.0f;
-                up[j].a = a0;
-                dn[j].a = a0;
-                up[j].d = a0;
-                dn[j].d = a0;
-                if (anch[j]) {
-                    up[j].b = phit[j];
-                    dn[j].b = phit[j];
-                }
-            }
-        }
-        block_scan<kBPT, true>(up, tot_up, lane, warp, n_warps);
-        block_scan<kBPT, false>(dn, tot_dn, lane, warp, n_warps);
-#pragma unroll
-        for (int j = 0; j < kBPT; ++j) {
-            const int k = tid * kBPT + j;
-            if (k < F) {
-                const float du = up[j].a == 0.0f ? up[j].d : big;
-                const float dd = dn[j].a == 0.0f ? dn[j].d : big;
-                float filled = du <= dd ? up[j].b : dn[j].b;  // a tie takes the fill from below
-                if (!any_anchor) filled = 0.0f;
-                float v = anch[j] ? phit[j] : filled;
-                if (!sig[j]) v = __ldg(ang + (size_t)fc * F + k);
-                phi[j] = v;
-                if (store) out[(size_t)fc * F + k] = v;
-            }
-        }
-        // the scans' barriers lie between this step's reads of the shared rows
-        // and the next step's writes
-    }
-}
-
-struct RtPghiArgs {
-    const float* mag;         // (B, T, F), T a multiple of T_c
-    const float* angles;      // (B, Ta, F) phases of the silent bins, Ta >= T
-    const float* prev_mag;    // (B, 2, F) carried magnitude frames, or null: two zero frames
-    const float* prev_phase;  // (B, F) carried phase, or null: zeros
-    float* phases;            // (B, T, F) out
-    int T, Ta, F, T_c;
-    float tol;            // threshold relative to the chunk's maximum
-    float fmul;           // gamma / (hop n_fft)
-    float inv_fmul;       // 1 / fmul
-    float carrier;        // 2 pi hop / n_fft
-    int S, P, C;          // frames a stage, producer and chain warps
-};
-
-constexpr int kRtE = 4;               // bins a lane owns in a tile of the fill's scans
-constexpr int kRtTile = 32 * kRtE;    // bins one warp's scan covers at a time
-constexpr int kRtWarps = 24;          // warps of the block, at most
-constexpr int kRtStage = 16;          // frames a stage, at most (each has an anchor flag word)
-constexpr int kRtBufs = 2;            // stage buffers
-constexpr int kRtNone = 8192;         // "no anchor on this side" (more than any distance)
-constexpr int kRtBatch = 8;           // bins a chain thread takes at once
-constexpr short kRtSig = 1, kRtAnchor = 2;  // a bin's flags in the source row while it is planned
-// named barriers (0 is __syncthreads, which this kernel does not use)
-constexpr int kBarProd = 1, kBarChain = 2, kBarFull = 3, kBarFree = 5;
-
-__device__ __forceinline__ void bar_sync(int id, int n) {
-    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-    asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
-
-__host__ __device__ inline int rt_row(int F) { return (F + 3) & ~3; }
-
-// Shared memory, in rows of F rounded up to 4 (so that every row starts
-// 16-byte aligned, 8 for the int16 rows): the producers' logarithms of a
-// stage's frames and the two before it (S + 2 rows; the first S then hold the
-// frequency derivatives, then the steps up), the chain's two phase rows, 64
-// words of chunk maxima and anchor flags; then kRtBufs stage buffers, each S
-// float segment-sum rows (the angles on arrival), S float ct rows and the
-// magnitudes of the frame before the stage (the chunk boundary's re-wrap),
-// and (after all the float rows) S int16 source rows a buffer (the bins'
-// flags while the stage is planned).
-__host__ __device__ inline size_t rt_pghi_smem_bytes(int F, int S) {
-    const size_t row = (size_t)rt_row(F);
-    return sizeof(float) * ((size_t)(S + 4) * row + 64) +
-           (size_t)kRtBufs * row * ((size_t)S * (2 * sizeof(float) + sizeof(short)) + sizeof(float));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;" ::: "memory"); }
+// A row of F floats rounded up to 4 (16-byte aligned rows; 8 for int16 rows).
+__host__ __device__ inline int pghi_row(int F) { return (F + 3) & ~3; }
 
 // A segmented sum over a span of bins: f, the span holds an anchor (a head);
 // b, the sum of the steps since the last one.
@@ -489,58 +188,65 @@ __device__ __forceinline__ SegSum seg_lane(const SegSum& x, int src) {
     return SegSum{__shfl_sync(0xffffffffu, x.f, src), __shfl_sync(0xffffffffu, x.b, src)};
 }
 
-__device__ __forceinline__ void load4(const float* p, float (&v)[kRtE]) {
+__device__ __forceinline__ void load4(const float* p, float (&v)[kFillE]) {
     const float4 a = *reinterpret_cast<const float4*>(p);
     v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
 }
 
-// The frequency derivative of the phase at a bin, from the logarithms of its
-// frame and the two before (the causal time stencil).
-__device__ __forceinline__ float rt_fs(const RtPghiArgs& p, float yc, float y1, float y2) {
-    const float dydt = __fmul_rn(__fadd_rn(__fsub_rn(__fmul_rn(3.0f, yc), __fmul_rn(4.0f, y1)), y2), 0.5f);
-    return __fadd_rn(__fmul_rn(-p.fmul, dydt), kPiF);
-}
-
 // The time step at bin k from its neighbours' logarithms (ylo at k - 1, yhi
 // at k + 1, clamped at the ends by the caller).
-__device__ __forceinline__ float rt_ts(const RtPghiArgs& p, float ylo, float yhi, int k) {
-    return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(yhi, ylo), 0.5f), p.inv_fmul),
-                     __fmul_rn(p.carrier, (float)k));
+__device__ __forceinline__ float pghi_ts(float inv_fmul, float carrier, float ylo, float yhi, int k) {
+    return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(yhi, ylo), 0.5f), inv_fmul), __fmul_rn(carrier, (float)k));
 }
 
-// One frame's plan, by one producer warp (rt_fill_plan in the plain version,
-// ops/cuda/stream_step.py), from the stage's shared rows.  On entry fs_r
-// holds the frame's frequency derivatives, src_r its bins' flags (sig |
-// anchor << 1, by the peak rule), seg_r its angles; `any` says whether the
+// The frequency derivative of the phase at a bin, RT-PGHI's causal time
+// stencil: from the logarithms of its frame and the two before.
+__device__ __forceinline__ float rt_fs(float fmul, float yc, float y1, float y2) {
+    const float dydt = __fmul_rn(__fadd_rn(__fsub_rn(__fmul_rn(3.0f, yc), __fmul_rn(4.0f, y1)), y2), 0.5f);
+    return __fadd_rn(__fmul_rn(-fmul, dydt), kPiF);
+}
+
+// The same, K's central time stencil from the previous and the next frame in
+// walking order, the sign of the walking direction applied.
+__device__ __forceinline__ float k_fs(float fmul, float sgn, float yp, float yn) {
+    const float dydt = __fmul_rn(__fsub_rn(yn, yp), 0.5f);
+    return __fadd_rn(__fmul_rn(sgn, __fmul_rn(-fmul, dydt)), kPiF);
+}
+
+// One frame's plan, by one warp, from shared rows of pghi_row(F) (both
+// recurrences; rt_fill_plan / fill_sources in the plain versions, ops/cuda/
+// stream_step.py and ops/cuda/pghi_kernel.py).  On entry fs_r holds the
+// frame's frequency derivatives, src_r its bins' flags (sig | anchor << 1,
+// by the peak rule), seg_r what a silent bin keeps; `any` says whether the
 // peak rule found an anchor.  Writes the source bin (src_r) and the segment
 // sum, or the constant, of every bin (seg_r).
 //   A. without an anchor, the onset rule: every audible bin equal to the
-//      frame maximum (mrow, the frame's magnitudes in device memory);
+//      frame maximum (mrow, the frame's magnitudes);
 // then over the frame's 128-bin tiles, lane `lane` holding bins 128 i + 4
 // lane .. + 3 (its neighbours' values through shuffles and the carries):
 //   C. tiles upward: the step up (fs of the bin and the one below, into
 //      fs_r), the segment sum from the nearest anchor below (into seg_r at
-//      the audible bins; a silent bin keeps its angle) and that anchor's bin
+//      the audible bins; a silent bin keeps its value) and that anchor's bin
 //      (packed into src_r with the flags);
 //   D. tiles downward: the step down (minus the next bin's step up), the
 //      segment sum from above, the source by the distance rule (a tie takes
 //      the anchor below), the constant of a silent bin or of a frame without
-//      an anchor.
-__device__ __forceinline__ void rt_plan_frame(const float* mrow, int any, float* fs_r, int F, short* src_r,
-                                              float* seg_r, int lane) {
-    const int nt = (F + kRtTile - 1) / kRtTile;
-    const int row = rt_row(F);
+//      an anchor (0, and source -1 for both).
+__device__ __forceinline__ void pghi_plan_frame(const float* mrow, int any, float* fs_r, int F, short* src_r,
+                                                float* seg_r, int lane) {
+    const int nt = (F + kFillTile - 1) / kFillTile;
+    const int row = pghi_row(F);
 
     // A.
     if (!any) {
         float fmax = -1.0f;
-        for (int k = lane; k < F; k += 32) fmax = fmaxf(fmax, __ldg(mrow + k));
+        for (int k = lane; k < F; k += 32) fmax = fmaxf(fmax, mrow[k]);
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) fmax = fmaxf(fmax, __shfl_xor_sync(0xffffffffu, fmax, o));
         for (int k = lane; k < F; k += 32) {
-            const bool an = (src_r[k] & kRtSig) && __ldg(mrow + k) == fmax;
+            const bool an = (src_r[k] & kFillSig) && mrow[k] == fmax;
             any |= an ? 1 : 0;
-            if (an) src_r[k] = kRtSig | kRtAnchor;
+            if (an) src_r[k] = kFillSig | kFillAnchor;
         }
         any = __any_sync(0xffffffffu, any);
         __syncwarp();
@@ -551,34 +257,34 @@ __device__ __forceinline__ void rt_plan_frame(const float* mrow, int any, float*
     int cbelow = -1;
     float fs_left = 0.0f;  // fs of the last bin of the tile below
     for (int i = 0; i < nt; ++i) {
-        const int k0 = i * kRtTile + kRtE * lane;
+        const int k0 = i * kFillTile + kFillE * lane;
         const bool act = k0 < row;
-        float fs[kRtE] = {0.0f, 0.0f, 0.0f, 0.0f}, an4[kRtE] = {0.0f, 0.0f, 0.0f, 0.0f};
-        short fl[kRtE] = {0, 0, 0, 0};
+        float fs[kFillE] = {0.0f, 0.0f, 0.0f, 0.0f}, an4[kFillE] = {0.0f, 0.0f, 0.0f, 0.0f};
+        short fl[kFillE] = {0, 0, 0, 0};
         if (act) {
             load4(fs_r + k0, fs);
             load4(seg_r + k0, an4);
             const short4 w = *reinterpret_cast<const short4*>(src_r + k0);
             fl[0] = w.x; fl[1] = w.y; fl[2] = w.z; fl[3] = w.w;
         }
-        float below_fs = __shfl_up_sync(0xffffffffu, fs[kRtE - 1], 1);
+        float below_fs = __shfl_up_sync(0xffffffffu, fs[kFillE - 1], 1);
         if (lane == 0) below_fs = fs_left;
-        SegSum own[kRtE];
-        float sup[kRtE];
-        int bl[kRtE];
+        SegSum own[kFillE];
+        float sup[kFillE];
+        int bl[kFillE];
 #pragma unroll
-        for (int e = 0; e < kRtE; ++e) {
+        for (int e = 0; e < kFillE; ++e) {
             const int k = k0 + e;
-            const int an = (k < F && (fl[e] & kRtAnchor)) ? 1 : 0;
+            const int an = (k < F && (fl[e] & kFillAnchor)) ? 1 : 0;
             const float fprev = e == 0 ? below_fs : fs[e - 1];
             sup[e] = (k == 0 || k >= F) ? 0.0f : __fmul_rn(__fadd_rn(fs[e], fprev), 0.5f);
             const SegSum x{an, an ? 0.0f : sup[e]};
             own[e] = e == 0 ? x : seg_compose(own[e - 1], x);
             bl[e] = an ? k : (e == 0 ? -1 : bl[e - 1]);
         }
-        const SegSum incl = seg_warp_scan<true>(own[kRtE - 1], lane);
+        const SegSum incl = seg_warp_scan<true>(own[kFillE - 1], lane);
         const SegSum before = seg_compose(carry, seg_shift<true>(incl, 1, lane));
-        int lmax = bl[kRtE - 1];
+        int lmax = bl[kFillE - 1];
 #pragma unroll
         for (int s = 1; s < 32; s <<= 1) {
             const int o = __shfl_up_sync(0xffffffffu, lmax, s);
@@ -588,11 +294,11 @@ __device__ __forceinline__ void rt_plan_frame(const float* mrow, int any, float*
         if (lane == 0) lex = -1;
         const int bfrom = max(cbelow, lex);
         if (act) {
-            float su[kRtE];
-            short w[kRtE];
+            float su[kFillE];
+            short w[kFillE];
 #pragma unroll
-            for (int e = 0; e < kRtE; ++e) {
-                su[e] = (fl[e] & kRtSig) ? seg_compose(before, own[e]).b : an4[e];
+            for (int e = 0; e < kFillE; ++e) {
+                su[e] = (fl[e] & kFillSig) ? seg_compose(before, own[e]).b : an4[e];
                 w[e] = (short)(fl[e] | ((max(bfrom, bl[e]) + 1) << 2));
             }
             *reinterpret_cast<float4*>(fs_r + k0) = make_float4(sup[0], sup[1], sup[2], sup[3]);
@@ -601,18 +307,18 @@ __device__ __forceinline__ void rt_plan_frame(const float* mrow, int any, float*
         }
         carry = seg_compose(carry, seg_lane(incl, 31));
         cbelow = max(cbelow, __shfl_sync(0xffffffffu, lmax, 31));
-        fs_left = __shfl_sync(0xffffffffu, fs[kRtE - 1], 31);
+        fs_left = __shfl_sync(0xffffffffu, fs[kFillE - 1], 31);
     }
 
     // D.
     carry = SegSum{0, 0.0f};
-    int cabove = kRtNone;
+    int cabove = kFillNone;
     float sup_right = 0.0f;  // the step up of bin 0 of the tile above
     for (int i = nt - 1; i >= 0; --i) {
-        const int k0 = i * kRtTile + kRtE * lane;
+        const int k0 = i * kFillTile + kFillE * lane;
         const bool act = k0 < row;
-        float sup[kRtE] = {0.0f, 0.0f, 0.0f, 0.0f}, sv[kRtE] = {0.0f, 0.0f, 0.0f, 0.0f};
-        short w[kRtE] = {0, 0, 0, 0};
+        float sup[kFillE] = {0.0f, 0.0f, 0.0f, 0.0f}, sv[kFillE] = {0.0f, 0.0f, 0.0f, 0.0f};
+        short w[kFillE] = {0, 0, 0, 0};
         if (act) {
             load4(fs_r + k0, sup);
             load4(seg_r + k0, sv);
@@ -621,17 +327,17 @@ __device__ __forceinline__ void rt_plan_frame(const float* mrow, int any, float*
         }
         float sup_up = __shfl_down_sync(0xffffffffu, sup[0], 1);
         if (lane == 31) sup_up = sup_right;
-        SegSum own[kRtE];
-        int ab[kRtE];
+        SegSum own[kFillE];
+        int ab[kFillE];
 #pragma unroll
-        for (int e = kRtE - 1; e >= 0; --e) {
+        for (int e = kFillE - 1; e >= 0; --e) {
             const int k = k0 + e;
-            const int an = (k < F && (w[e] & kRtAnchor)) ? 1 : 0;
-            const float nb = e < kRtE - 1 ? sup[e + 1] : sup_up;
+            const int an = (k < F && (w[e] & kFillAnchor)) ? 1 : 0;
+            const float nb = e < kFillE - 1 ? sup[e + 1] : sup_up;
             const float sdn = k < F - 1 ? -nb : 0.0f;
             const SegSum x{an, an ? 0.0f : sdn};
-            own[e] = e == kRtE - 1 ? x : seg_compose(own[e + 1], x);
-            ab[e] = an ? k : (e == kRtE - 1 ? kRtNone : ab[e + 1]);
+            own[e] = e == kFillE - 1 ? x : seg_compose(own[e + 1], x);
+            ab[e] = an ? k : (e == kFillE - 1 ? kFillNone : ab[e + 1]);
         }
         const SegSum incl = seg_warp_scan<false>(own[0], lane);
         const SegSum before = seg_compose(carry, seg_shift<false>(incl, 1, lane));
@@ -642,17 +348,17 @@ __device__ __forceinline__ void rt_plan_frame(const float* mrow, int any, float*
             if (lane + s <= 31) lmin = min(lmin, o);
         }
         int lex = __shfl_down_sync(0xffffffffu, lmin, 1);
-        if (lane == 31) lex = kRtNone;
+        if (lane == 31) lex = kFillNone;
         const int afrom = min(cabove, lex);
         if (act) {
-            short sr[kRtE];
+            short sr[kFillE];
 #pragma unroll
-            for (int e = 0; e < kRtE; ++e) {
+            for (int e = 0; e < kFillE; ++e) {
                 const int k = k0 + e;
                 sr[e] = -1;
-                // a silent bin keeps its angle; an audible one holds the sum from below
-                if (k < F && (w[e] & kRtSig)) {
-                    if (w[e] & kRtAnchor) {
+                // a silent bin keeps its value; an audible one holds the sum from below
+                if (k < F && (w[e] & kFillSig)) {
+                    if (w[e] & kFillAnchor) {
                         sr[e] = (short)k;
                         sv[e] = -0.0f;
                     } else if (!any) {
@@ -660,8 +366,8 @@ __device__ __forceinline__ void rt_plan_frame(const float* mrow, int any, float*
                     } else {
                         const int below = (w[e] >> 2) - 1;
                         const int above = min(afrom, ab[e]);
-                        const int du = below >= 0 ? k - below : kRtNone;
-                        const int dd = above < kRtNone ? above - k : kRtNone;
+                        const int du = below >= 0 ? k - below : kFillNone;
+                        const int dd = above < kFillNone ? above - k : kFillNone;
                         if (du <= dd) {
                             sr[e] = (short)below;
                         } else {
@@ -679,6 +385,439 @@ __device__ __forceinline__ void rt_plan_frame(const float* mrow, int any, float*
         sup_right = __shfl_sync(0xffffffffu, sup[0], 0);
     }
 }
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;" ::: "memory"); }
+
+// Bulk copies by the tensor memory accelerator, completion on an mbarrier
+// in shared memory (16-byte aligned addresses, sizes a multiple of 16).
+__device__ __forceinline__ unsigned smem_addr(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// The one arrival of the barrier's phase, announcing `bytes` to come.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)), "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes, unsigned long long* bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(bytes), "r"(smem_addr(bar))
+                 : "memory");
+}
+
+// Wait until the barrier's phase of parity `parity` has completed; trap
+// after about 10 s rather than hang.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+    const unsigned a = smem_addr(bar);
+    const long long t0 = clock64();
+    unsigned done = 0;
+    while (true) {
+        asm volatile(
+            "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(a), "r"(parity)
+            : "memory");
+        if (done) return;
+        if (clock64() - t0 > (1ll << 34)) __trap();
+    }
+}
+
+// The span [p, p + n floats) widened to 16-byte boundaries for a bulk copy:
+// the aligned start, the floats before p in it and its bytes.
+struct Span16 {
+    const char* from;
+    int shift;
+    unsigned bytes;
+};
+__device__ __forceinline__ Span16 span16(const float* p, long long n) {
+    const unsigned long long a = (unsigned long long)p;
+    const unsigned long long a0 = a & ~15ull;
+    const unsigned long long e = (a + 4ull * (unsigned long long)n + 15ull) & ~15ull;
+    return Span16{reinterpret_cast<const char*>(a0), (int)((a - a0) / 4), (unsigned)(e - a0)};
+}
+
+// ------------------------------------------------- K's offline recurrence
+constexpr int kPlanTile = 4;    // frames a plan block takes, at most (a warp a frame)
+constexpr int kWalkQuads = 2;   // groups of 4 bins a walk chain thread owns, at most
+constexpr int kWalkWarps = 16;  // chain warps of a walk block, at most
+constexpr int kWalkSide = 2;    // side warps of a walk block: the copies and the stores
+constexpr int kWalkGroup = 4;   // plan rows a bulk copy of the walk brings, at most
+
+// The plan's rows: F rounded up to 8, so that both arrays' rows are whole
+// 16-byte units for the walk's bulk copies.
+__host__ __device__ inline int pghi_plan_row(int F) { return (F + 7) & ~7; }
+
+__host__ __device__ inline size_t round16(size_t x) { return (x + 15) & ~(size_t)15; }
+
+struct PlanArgs {
+    const float* mag;     // (B, T, F)
+    const float* angles;  // (B, T, F) phases of the silent bins
+    const float* abstol;  // (B,)
+    short* src;           // (B, T, Fp) out: the source bin, or -1
+    float* off;           // (B, T, Fp) out: ct[src] + the segment sum, or the constant
+    int T, F, Fp, bidir, tile, n_tiles;
+    float fmul;           // gamma / (hop n_fft)
+    float inv_fmul;       // 1 / fmul: the time step multiplies by it
+    float carrier;        // 2 pi hop / n_fft
+};
+
+// Shared memory of a plan block, in this order: the magnitudes and the
+// logarithms of the tile's frames and one halo frame on each side (2 x
+// (tile + 2) float rows of pghi_row(F)); a work area, per frame an fs and a
+// segment-sum float row and an int16 source row (at least the bulk copy of
+// the halo's magnitudes, which it holds first); the mbarrier.
+__host__ __device__ inline size_t pghi_plan_work_bytes(int F, int tile) {
+    const size_t row = (size_t)pghi_row(F);
+    const size_t work = (size_t)tile * row * (2 * sizeof(float) + sizeof(short));
+    const size_t stage = round16(sizeof(float) * (size_t)(tile + 2) * F + 32);
+    return round16(work > stage ? work : stage);
+}
+__host__ __device__ inline size_t pghi_plan_smem_bytes(int F, int tile) {
+    return 2 * sizeof(float) * (size_t)(tile + 2) * pghi_row(F) + pghi_plan_work_bytes(F, tile) + 16;
+}
+
+// A block plans frames t0 .. t0 + tile - 1 of clip b.  One thread copies the
+// magnitudes of frames t0 - 1 .. t0 + tile that lie in the clip, as one span,
+// by a bulk copy; all threads then fill
+// the magnitude and logarithm rows (zeros and log(eps) outside the clip:
+// frame -1 is the causal zero frame, frames from T on are never read), each
+// logf taken once.  Warp q then plans frame t0 + q alone: in its walking
+// orientation, the frequency derivative and the flags by the peak rule with
+// the previous frame in walking order; pghi_plan_frame (skipped in a frame
+// without an audible bin: all angles); and the plan row: (src, ct[src] +
+// seg) at an audible bin with a source (ct from the logarithms at the
+// source, as the kernel before this design took it at every bin), (-1, 0)
+// at an audible bin of a frame without an anchor, (-1, its angle) at a
+// silent bin, (-1, 0) at the padding.
+__global__ void __launch_bounds__(32 * kPlanTile) pghi_plan_kernel(PlanArgs p) {
+    extern __shared__ __align__(16) float smem[];
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int n_thr = blockDim.x;
+    const int T = p.T, F = p.F, TT = p.tile, R = TT + 2;
+    const int row = pghi_row(F);
+    float* sM = smem;                        // R rows: magnitudes of frames t0 - 1 ..
+    float* sY = sM + (size_t)R * row;        // R rows: their logarithms
+    char* work = reinterpret_cast<char*>(sY + (size_t)R * row);
+    float* sFs = reinterpret_cast<float*>(work);            // TT rows: fs, then the step up
+    float* sSeg = sFs + (size_t)TT * row;                   // TT rows: the segment sums
+    short* sSrc = reinterpret_cast<short*>(sSeg + (size_t)TT * row);  // TT rows: flags, then sources
+    const float* stage = reinterpret_cast<const float*>(work);        // the halo's bulk copy, first
+    const size_t work_bytes = pghi_plan_work_bytes(F, TT);
+    unsigned long long* bar = reinterpret_cast<unsigned long long*>(work + work_bytes);
+
+    const long long blk = blockIdx.x;
+    const long long b = blk / p.n_tiles;
+    const int t0 = (int)(blk - b * p.n_tiles) * TT;
+    const int f_lo = t0 - 1;
+    const int f0 = max(f_lo, 0), f1 = min(f_lo + R, T);   // the halo's frames in the clip
+    const float* mag = p.mag + (size_t)b * T * F;
+    const Span16 hm = span16(mag + (size_t)f0 * F, (long long)(f1 - f0) * F);
+    if (tid == 0) {
+        mbar_init(bar);
+        mbar_expect(bar, hm.bytes);
+        bulk_load(work, hm.from, hm.bytes, bar);
+    }
+    __syncthreads();
+    mbar_wait(bar, 0);
+    for (int r = 0; r < R; ++r) {
+        const int f = f_lo + r;
+        const bool in = f >= f0 && f < f1;
+        const float* m = stage + hm.shift + (long long)(f - f0) * F;
+        for (int k = tid; k < F; k += n_thr) {
+            const float v = in ? m[k] : 0.0f;
+            sM[(size_t)r * row + k] = v;
+            sY[(size_t)r * row + k] = logf(fmaxf(v, kPghiEps));
+        }
+    }
+    __syncthreads();  // the work area is free again
+
+    const int t = t0 + warp;
+    if (warp >= TT || t >= T) return;
+    // the walking orientation: forward, or backward on bidir's chain 1
+    const bool fwd = !p.bidir || t >= T / 2;
+    const int fp = fwd ? t - 1 : t + 1;
+    const int fn = fwd ? min(t + 1, T - 1) : max(t - 1, 0);
+    const float sgn = fwd ? 1.0f : -1.0f;
+    const float abstol = p.abstol[b];
+    const float* mp_r = sM + (size_t)(fp - f_lo) * row;
+    const float* mc_r = sM + (size_t)(t - f_lo) * row;
+    const float* yp_r = sY + (size_t)(fp - f_lo) * row;
+    const float* yc_r = sY + (size_t)(t - f_lo) * row;
+    const float* yn_r = sY + (size_t)(fn - f_lo) * row;
+    float* fs_r = sFs + (size_t)warp * row;
+    float* seg_r = sSeg + (size_t)warp * row;
+    short* src_r = sSrc + (size_t)warp * row;
+    int any = 0, audible = 0;
+    for (int k0 = lane; k0 < F; k0 += 4 * 32) {
+        float yp[4], yn[4], mc[4], mp[4], mdn[4], mup[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            const int k = min(k0 + 32 * u, F - 1);
+            yp[u] = yp_r[k];
+            yn[u] = yn_r[k];
+            mc[u] = mc_r[k];
+            mp[u] = mp_r[k];
+            mdn[u] = k > 0 ? mc_r[k - 1] : -1.0f;
+            mup[u] = k < F - 1 ? mc_r[k + 1] : -1.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            const int k = k0 + 32 * u;
+            if (k < F) {
+                fs_r[k] = k_fs(p.fmul, sgn, yp[u], yn[u]);
+                const bool sg = mc[u] > abstol;
+                const bool an = sg && mp[u] > abstol && mc[u] >= mdn[u] && mc[u] >= mup[u];
+                any |= an ? 1 : 0;
+                audible |= sg ? 1 : 0;
+                src_r[k] = (short)((sg ? kFillSig : 0) | (an ? kFillAnchor : 0));
+                seg_r[k] = 0.0f;
+            }
+        }
+    }
+    any = __any_sync(0xffffffffu, any);
+    audible = __any_sync(0xffffffffu, audible);
+    __syncwarp();
+    if (audible) pghi_plan_frame(mc_r, any, fs_r, F, src_r, seg_r, lane);
+    __syncwarp();
+
+    const size_t o = ((size_t)b * T + t) * p.Fp;
+    short* so = p.src + o;
+    float* oo = p.off + o;
+    const float* ang = p.angles + ((size_t)b * T + t) * F;
+    for (int k0 = kFillE * lane; k0 < p.Fp; k0 += kFillTile) {
+        short s4[kFillE] = {-1, -1, -1, -1};
+        float o4[kFillE] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (k0 < F) {
+#pragma unroll
+            for (int e = 0; e < kFillE; ++e) {
+                const int k = k0 + e;
+                if (k < F) {
+                    if (!(mc_r[k] > abstol)) {
+                        o4[e] = __ldg(ang + k);
+                    } else {
+                        const int s = src_r[k];
+                        s4[e] = (short)s;
+                        o4[e] = seg_r[k];
+                        if (s >= 0) {
+                            // ct at the source, from its neighbours' logarithms
+                            const int sd = s > 0 ? s - 1 : 0, su = s < F - 1 ? s + 1 : F - 1;
+                            const float tsp = pghi_ts(p.inv_fmul, p.carrier, yp_r[sd], yp_r[su], s);
+                            const float tsc = pghi_ts(p.inv_fmul, p.carrier, yc_r[sd], yc_r[su], s);
+                            const float ct = __fmul_rn(sgn, __fmul_rn(__fadd_rn(tsp, tsc), 0.5f));
+                            o4[e] = __fadd_rn(ct, seg_r[k]);
+                        }
+                    }
+                }
+            }
+        }
+        *reinterpret_cast<short4*>(so + k0) = make_short4(s4[0], s4[1], s4[2], s4[3]);
+        *reinterpret_cast<float4*>(oo + k0) = make_float4(o4[0], o4[1], o4[2], o4[3]);
+    }
+}
+
+struct WalkArgs {
+    const short* src;  // (B, T, Fp)
+    const float* off;  // (B, T, Fp)
+    float* phases;     // (B, T, F) out
+    int T, F, Fp, bidir;
+};
+
+// Shared memory of a walk block: the two phase rows, then kSlots ring slots
+// of kWalkGroup plan rows each (a float and an int16 a bin), all of Fp, and
+// an mbarrier a slot.
+__host__ __device__ inline size_t pghi_walk_smem_bytes(int F, int slots) {
+    return (size_t)pghi_plan_row(F) *
+               (2 * sizeof(float) + (size_t)slots * kWalkGroup * (sizeof(float) + sizeof(short))) +
+           8 * (size_t)slots;
+}
+
+// One block walks one chain: chain warps, then kWalkSide side warps.  The
+// side warps' first lane keeps the plan rows of the next kSlots - 1 groups
+// of kWalkGroup steps in flight: a group's frames are consecutive in the
+// plan (descending on bidir's chain 1), so one bulk copy brings its source
+// rows and one its offset rows into a ring slot, completing on the slot's
+// mbarrier.  At step s the side warps also write the phase row of step s -
+// 1 (complete since the last barrier) to `phases`, lanes on consecutive
+// bins.  Chain thread i owns the bin quads i, i + n_chain, ... (at most
+// kWalkQuads): at step s it gathers from the previous phase row, adds,
+// stores its quads of the new row to shared memory, and reads step s + 1's
+// quads into registers (waiting for the slot where that step starts a
+// group).  The phase rows alternate, so one barrier of the whole block a
+// step separates the step's reads from the next step's writes, lets the
+// side warps read a row before the chain writes over it, and lets the
+// copying lane refill, as a group starts, the slot of the group before it,
+// which every chain thread has read before that barrier.
+template <int kSlots>
+__global__ void __launch_bounds__(32 * (kWalkWarps + kWalkSide)) pghi_walk_kernel(WalkArgs p) {
+    extern __shared__ __align__(16) float smem[];
+    constexpr int G = kWalkGroup;
+    const int tid = threadIdx.x;
+    const int n_chain = blockDim.x - 32 * kWalkSide;
+    const int T = p.T, F = p.F, Fp = p.Fp;
+    float* sPhi = smem;                                                      // 2 x Fp
+    float* sOff = sPhi + 2 * Fp;                                             // kSlots x G x Fp
+    short* sSrc = reinterpret_cast<short*>(sOff + kSlots * G * Fp);          // kSlots x G x Fp
+    unsigned long long* sBar = reinterpret_cast<unsigned long long*>(sSrc + kSlots * G * Fp);
+
+    const int chain = p.bidir ? (int)(blockIdx.x & 1) : 0;
+    const long long b = p.bidir ? (long long)(blockIdx.x >> 1) : (long long)blockIdx.x;
+    const int mid = T / 2;
+    const int n_steps = !p.bidir ? T : (chain == 0 ? T - mid : mid + 1);
+    const bool down = p.bidir && chain == 1;  // chain 1 walks mid, mid - 1, .. 0
+    const int first = !p.bidir ? 0 : mid;     // the frame of step 0; step s's is first -+ s
+    auto stored = [&](int s) { return !p.bidir || chain == 0 || s > 0; };
+    // the steps of group g, and where step s lies in its slot
+    auto group_steps = [&](int g) { return min(G, n_steps - g * G); };
+    auto row_in_slot = [&](int s) {
+        const int g = s / G;
+        return down ? group_steps(g) - 1 - (s - g * G) : s - g * G;
+    };
+
+    if (tid == 0) {
+        for (int i = 0; i < kSlots; ++i) mbar_init(sBar + i);
+    }
+    for (int k = tid; k < Fp; k += blockDim.x) sPhi[k] = 0.0f;
+    __syncthreads();
+
+    const int n_groups = (n_steps + G - 1) / G;
+    if (tid >= n_chain) {
+        // ---- the side warps
+        const int sid = tid - n_chain, n_side = 32 * kWalkSide;
+        const short* src = p.src + (size_t)b * T * Fp;
+        const float* off = p.off + (size_t)b * T * Fp;
+        auto issue = [&](int g) {
+            if (g < n_groups) {
+                const int c = group_steps(g);
+                const int f0 = down ? first - g * G - (c - 1) : first + g * G;  // the lowest frame
+                const int slot = g % kSlots;
+                mbar_expect(sBar + slot, 6u * c * Fp);
+                bulk_load(sSrc + slot * G * Fp, src + (size_t)f0 * Fp, 2u * c * Fp, sBar + slot);
+                bulk_load(sOff + slot * G * Fp, off + (size_t)f0 * Fp, 4u * c * Fp, sBar + slot);
+            }
+        };
+        // the phase row of step s (in the buffer the chain wrote it to) to `phases`
+        auto emit = [&](int s) {
+            if (stored(s)) {
+                const float* r = sPhi + ((s & 1) ? 0 : Fp);
+                float* o = p.phases + ((size_t)b * T + (down ? first - s : first + s)) * F;
+                for (int k = sid; k < F; k += n_side) o[k] = r[k];
+            }
+        };
+        if (sid == 0) {
+            for (int g = 0; g < kSlots - 1; ++g) issue(g);
+        }
+        for (int s = 0; s < n_steps; ++s) {
+            // as group g starts, into the slot of group g - 1
+            if (sid == 0 && s % G == 0) issue(s / G + kSlots - 1);
+            if (s > 0) emit(s - 1);
+            __syncthreads();
+        }
+        emit(n_steps - 1);
+        return;
+    }
+
+    // ---- the chain
+    const int n_quads = Fp / 4;
+    short4 rs[kWalkQuads];
+    float4 ro[kWalkQuads];
+    // this thread's quads of step s's plan rows, waiting for the slot where
+    // the step starts a group
+    auto fetch = [&](int s) {
+        const int g = s / G;
+        const int slot = g % kSlots;
+        if (s - g * G == 0) mbar_wait(sBar + slot, (unsigned)(g / kSlots) & 1u);
+        const int at = (slot * G + row_in_slot(s)) * Fp;
+        const short4* sr = reinterpret_cast<const short4*>(sSrc + at);
+        const float4* so = reinterpret_cast<const float4*>(sOff + at);
+#pragma unroll
+        for (int j = 0; j < kWalkQuads; ++j) {
+            const int q = tid + j * n_chain;
+            if (q < n_quads) {
+                rs[j] = sr[q];
+                ro[j] = so[q];
+            }
+        }
+    };
+    fetch(0);
+    float* cur = sPhi;
+    float* nxt = sPhi + Fp;
+    for (int s = 0; s < n_steps; ++s) {
+#pragma unroll
+        for (int j = 0; j < kWalkQuads; ++j) {
+            const int q = tid + j * n_chain;
+            if (q < n_quads) {
+                float4 v;
+                v.x = rs[j].x >= 0 ? __fadd_rn(cur[rs[j].x], ro[j].x) : ro[j].x;
+                v.y = rs[j].y >= 0 ? __fadd_rn(cur[rs[j].y], ro[j].y) : ro[j].y;
+                v.z = rs[j].z >= 0 ? __fadd_rn(cur[rs[j].z], ro[j].z) : ro[j].z;
+                v.w = rs[j].w >= 0 ? __fadd_rn(cur[rs[j].w], ro[j].w) : ro[j].w;
+                reinterpret_cast<float4*>(nxt)[q] = v;
+            }
+        }
+        if (s + 1 < n_steps) fetch(s + 1);
+        __syncthreads();
+        float* tmp = cur;
+        cur = nxt;
+        nxt = tmp;
+    }
+}
+
+// ------------------------------------------------------ RT-PGHI (streaming)
+struct RtPghiArgs {
+    const float* mag;         // (B, T, F), T a multiple of T_c
+    const float* angles;      // (B, Ta, F) phases of the silent bins, Ta >= T
+    const float* prev_mag;    // (B, 2, F) carried magnitude frames, or null: two zero frames
+    const float* prev_phase;  // (B, F) carried phase, or null: zeros
+    float* phases;            // (B, T, F) out
+    int T, Ta, F, T_c;
+    float tol;            // threshold relative to the chunk's maximum
+    float fmul;           // gamma / (hop n_fft)
+    float inv_fmul;       // 1 / fmul
+    float carrier;        // 2 pi hop / n_fft
+    int S, P, C;          // frames a stage, producer and chain warps
+};
+
+constexpr int kRtWarps = 24;          // warps of the block, at most
+constexpr int kRtStage = 16;          // frames a stage, at most (each has an anchor flag word)
+constexpr int kRtBufs = 2;            // stage buffers
+constexpr int kRtBatch = 8;           // bins a chain thread takes at once
+// named barriers (0 is __syncthreads, which this kernel does not use)
+constexpr int kBarProd = 1, kBarChain = 2, kBarFull = 3, kBarFree = 5;
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+    asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// Shared memory, in rows of F rounded up to 4 (so that every row starts
+// 16-byte aligned, 8 for the int16 rows): the producers' logarithms of a
+// stage's frames and the two before it (S + 2 rows; the first S then hold the
+// frequency derivatives, then the steps up), the chain's two phase rows, 64
+// words of chunk maxima and anchor flags; then kRtBufs stage buffers, each S
+// float segment-sum rows (the angles on arrival), S float ct rows and the
+// magnitudes of the frame before the stage (the chunk boundary's re-wrap),
+// and (after all the float rows) S int16 source rows a buffer (the bins'
+// flags while the stage is planned).
+__host__ __device__ inline size_t rt_pghi_smem_bytes(int F, int S) {
+    const size_t row = (size_t)pghi_row(F);
+    return sizeof(float) * ((size_t)(S + 4) * row + 64) +
+           (size_t)kRtBufs * row * ((size_t)S * (2 * sizeof(float) + sizeof(short)) + sizeof(float));
+}
+
 
 // One block walks one session.  Warps 0 .. P - 1 produce a stage (S frames
 // of one chunk) at a time, all of them together, with barriers of their own
@@ -699,7 +838,7 @@ __global__ void __launch_bounds__(32 * kRtWarps) rt_pghi_phases_kernel(RtPghiArg
     const int lane = tid & 31;
     const int warp = tid >> 5;
     const int F = p.F, T_c = p.T_c, S = p.S;
-    const int row = rt_row(F);
+    const int row = pghi_row(F);
     const int n_all = blockDim.x;
     const int n_prod = 32 * p.P;
 
@@ -820,7 +959,7 @@ __global__ void __launch_bounds__(32 * kRtWarps) rt_pghi_phases_kernel(RtPghiArg
                             const bool sg = m[u] > thr;
                             const bool an = sg && m1[u] > thr && m[u] >= mdn[u] && m[u] >= mup[u];
                             any |= an ? 1 : 0;
-                            fq[k] = (short)((sg ? kRtSig : 0) | (an ? kRtAnchor : 0));
+                            fq[k] = (short)((sg ? kFillSig : 0) | (an ? kFillAnchor : 0));
                         }
                     }
                 }
@@ -839,7 +978,7 @@ __global__ void __launch_bounds__(32 * kRtWarps) rt_pghi_phases_kernel(RtPghiArg
                 float* ctq = ct_b + (size_t)q * row;
                 for (int k = lane; k < F; k += 32) {
                     const int kd = k > 0 ? k - 1 : 0, ku = k < F - 1 ? k + 1 : F - 1;
-                    ctq[k] = __fmul_rn(__fadd_rn(rt_ts(p, y1[kd], y1[ku], k), rt_ts(p, yc[kd], yc[ku], k)), 0.5f);
+                    ctq[k] = __fmul_rn(__fadd_rn(pghi_ts(p.inv_fmul, p.carrier, y1[kd], y1[ku], k), pghi_ts(p.inv_fmul, p.carrier, yc[kd], yc[ku], k)), 0.5f);
                 }
             }
             bar_sync(kBarProd, n_prod);
@@ -848,12 +987,12 @@ __global__ void __launch_bounds__(32 * kRtWarps) rt_pghi_phases_kernel(RtPghiArg
             for (int k = tid; k < F; k += n_prod) {
                 for (int q = 0; q < Sg; ++q) {
                     float* y = sY + (size_t)q * row + k;
-                    *y = rt_fs(p, y[2 * row], y[row], y[0]);
+                    *y = rt_fs(p.fmul, y[2 * row], y[row], y[0]);
                 }
             }
             bar_sync(kBarProd, n_prod);
             for (int q = warp; q < Sg; q += p.P) {
-                rt_plan_frame(mag + (size_t)(s0 + q) * F, sAny[q], sY + (size_t)q * row, F,
+                pghi_plan_frame(mag + (size_t)(s0 + q) * F, sAny[q], sY + (size_t)q * row, F,
                               src_b + (size_t)q * row, seg_b + (size_t)q * row, lane);
             }
             bar_arrive(kBarFull + buf, n_all);
@@ -1067,43 +1206,91 @@ long long att_pghi_synth_fft_smem_bytes(int rows, int hop, int n_fft, int teams)
     return (long long)(att::pghi_synth_fft_smem_floats(rows, hop, n_fft, teams) * sizeof(float));
 }
 
-// mag, angles, phases: (B, T, F) float32; abstol: (B,).  bpt bins per thread
-// (1, 2 or 4) with ceil(F / (32 bpt)) warps per block, at most 32.  bidir
-// runs two blocks per clip and needs T >= 4.  Returns a cudaError_t.
-int att_pghi_phases(const float* mag, const float* angles, const float* abstol, float* phases,
-                    long long B, int T, int F, float fmul, float inv_fmul, float carrier,
-                    int bidir, int bpt, void* stream) {
+long long att_pghi_plan_smem_bytes(int F, int tile) { return (long long)att::pghi_plan_smem_bytes(F, tile); }
+
+long long att_pghi_walk_smem_bytes(int F, int slots) { return (long long)att::pghi_walk_smem_bytes(F, slots); }
+
+// K's plan: mag, angles: (B, T, F) float32, 2 <= F <= 4096; abstol: (B,);
+// src (int16), off (float32): (B, T, Fp), Fp = F rounded up to 8, every
+// value written.  tile frames a block (1 to 4; one warp each).  bidir plans
+// the frames before T / 2 backward and needs T >= 4.  Returns a cudaError_t.
+int att_pghi_plan(const float* mag, const float* angles, const float* abstol, short* src, float* off,
+                  long long B, int T, int F, float fmul, float inv_fmul, float carrier, int bidir, int tile,
+                  void* stream) {
     using namespace att;
-    if (B < 1 || T < 1 || F < 2 || (bidir && T < 4)) return (int)cudaErrorInvalidValue;
-    const int n_warps = (F + 32 * bpt - 1) / (32 * bpt);
-    if (n_warps > 32 || (bpt != 1 && bpt != 2 && bpt != 4)) return (int)cudaErrorInvalidValue;
-    PghiArgs a;
+    if (B < 1 || T < 1 || F < 2 || F > 4096 || (bidir && T < 4) || tile < 1 || tile > kPlanTile) {
+        return (int)cudaErrorInvalidValue;
+    }
+    PlanArgs a;
     a.mag = mag;
     a.angles = angles;
     a.abstol = abstol;
-    a.phases = phases;
+    a.src = src;
+    a.off = off;
     a.T = T;
     a.F = F;
+    a.Fp = pghi_plan_row(F);
     a.bidir = bidir;
+    a.tile = tile;
+    a.n_tiles = (T + tile - 1) / tile;
     a.fmul = fmul;
     a.inv_fmul = inv_fmul;
     a.carrier = carrier;
-    const int threads = 32 * n_warps;
-    const size_t smem = pghi_phases_smem_bytes(threads * bpt);
-    dim3 grid((unsigned)(bidir ? 2 * B : B));
+    const size_t smem = pghi_plan_smem_bytes(F, tile);
+    cudaError_t err = pghi_allow_smem(pghi_plan_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    pghi_plan_kernel<<<dim3((unsigned)(B * a.n_tiles)), 32 * tile, smem, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// K's walk: src, off: (B, T, Fp) from att_pghi_plan, 16-byte aligned;
+// phases: (B, T, F) out.  warps: chain warps (1 to 16) such that 32 warps x
+// 2 quads of bins cover Fp, and two side warps besides; slots 2 or 4
+// ring slots of 4 plan rows (8 or 16 rows in flight).  bidir runs two blocks
+// a clip and needs T >= 4.  Returns a cudaError_t.
+int att_pghi_walk(const short* src, const float* off, float* phases, long long B, int T, int F, int bidir,
+                  int warps, int slots, void* stream) {
+    using namespace att;
+    const int Fp = pghi_plan_row(F);
+    if (B < 1 || T < 1 || F < 2 || F > 4096 || (bidir && T < 4) || warps < 1 || warps > kWalkWarps ||
+        32 * warps * 4 * kWalkQuads < Fp || (slots != 2 && slots != 4) || ((unsigned long long)src & 15) != 0 ||
+        ((unsigned long long)off & 15) != 0) {
+        return (int)cudaErrorInvalidValue;
+    }
+    WalkArgs a;
+    a.src = src;
+    a.off = off;
+    a.phases = phases;
+    a.T = T;
+    a.F = F;
+    a.Fp = Fp;
+    a.bidir = bidir;
+    const size_t smem = pghi_walk_smem_bytes(F, slots);
+    const dim3 grid((unsigned)(bidir ? 2 * B : B));
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
-#define ATT_LAUNCH_PHASES(BPT)                                              \
-    do {                                                                    \
-        err = pghi_allow_smem(pghi_phases_kernel<BPT>, smem);               \
-        if (err != cudaSuccess) return (int)err;                            \
-        pghi_phases_kernel<BPT><<<grid, threads, smem, s>>>(a);             \
-    } while (0)
-    if (bpt == 1) ATT_LAUNCH_PHASES(1);
-    else if (bpt == 2) ATT_LAUNCH_PHASES(2);
-    else ATT_LAUNCH_PHASES(4);
-#undef ATT_LAUNCH_PHASES
+    if (slots == 4) {
+        err = pghi_allow_smem(pghi_walk_kernel<4>, smem);
+        if (err != cudaSuccess) return (int)err;
+        pghi_walk_kernel<4><<<grid, 32 * (warps + kWalkSide), smem, s>>>(a);
+    } else {
+        err = pghi_allow_smem(pghi_walk_kernel<2>, smem);
+        if (err != cudaSuccess) return (int)err;
+        pghi_walk_kernel<2><<<grid, 32 * (warps + kWalkSide), smem, s>>>(a);
+    }
     return (int)cudaGetLastError();
+}
+
+// K's recurrence, the plan then the walk on the caller's stream: mag,
+// angles, phases: (B, T, F) float32; abstol: (B,); src, off: the plan's
+// (B, T, Fp) scratch.  Returns a cudaError_t.
+int att_pghi_phases(const float* mag, const float* angles, const float* abstol, float* phases, short* src,
+                    float* off, long long B, int T, int F, float fmul, float inv_fmul, float carrier, int bidir,
+                    int tile, int warps, int slots, void* stream) {
+    const int err = att_pghi_plan(mag, angles, abstol, src, off, B, T, F, fmul, inv_fmul, carrier, bidir, tile,
+                                  stream);
+    if (err != 0) return err;
+    return att_pghi_walk(src, off, phases, B, T, F, bidir, warps, slots, stream);
 }
 
 long long att_rt_pghi_smem_bytes(int F, int S) {

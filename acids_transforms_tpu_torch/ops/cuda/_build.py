@@ -191,9 +191,24 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.att_gl_fullk_step.restype = i
     lib.att_pghi_synth_smem_bytes.argtypes = [i, i, i]
     lib.att_pghi_synth_smem_bytes.restype = ll
+    lib.att_pghi_plan_smem_bytes.argtypes = [i, i]
+    lib.att_pghi_plan_smem_bytes.restype = ll
+    lib.att_pghi_walk_smem_bytes.argtypes = [i, i]
+    lib.att_pghi_walk_smem_bytes.restype = ll
+    lib.att_pghi_plan.argtypes = [
+        p, p, p, p, p,                   # mag, angles, abstol, src, off
+        ll, i, i, f, f, f, i, i, p,      # B, T, F, fmul, 1 / fmul, carrier, bidir, tile, stream
+    ]
+    lib.att_pghi_plan.restype = i
+    lib.att_pghi_walk.argtypes = [
+        p, p, p,                         # src, off, phases
+        ll, i, i, i, i, i, p,            # B, T, F, bidir, chain warps, ring slots, stream
+    ]
+    lib.att_pghi_walk.restype = i
     lib.att_pghi_phases.argtypes = [
-        p, p, p, p,                      # mag, angles, abstol, phases
-        ll, i, i, f, f, f, i, i, p,      # B, T, F, fmul, 1 / fmul, carrier, bidir, bpt, stream
+        p, p, p, p, p, p,                # mag, angles, abstol, phases, src, off
+        ll, i, i, f, f, f, i,            # B, T, F, fmul, 1 / fmul, carrier, bidir
+        i, i, i, p,                      # tile, chain warps, ring slots, stream
     ]
     lib.att_pghi_phases.restype = i
     lib.att_rt_pghi_smem_bytes.argtypes = [i, i]

@@ -1,34 +1,39 @@
 """PGHI inversion on the card: magnitude -> phases -> audio (twin of the JAX
 ``ops/pallas/pghi_kernel.py``).
 
-Two hand-written kernels (``csrc/pghi.cu``): the recurrence (log-magnitude,
-phase gradients, anchor mask, two-sided segmented fill along bins, the serial
-trapezoid recurrence over frames, silent-bin phases from an input), one thread
-block per clip, and the synthesis (``mag * e^{i phase}``, windowed inverse DFT
-and overlap-add), one block per clip and tile of output chunks.  The synthesis
-has two routes, picked by ``n_fft`` alone (``frames_fft.fft_covers``): where
-``n_fft`` is a power of two from 64 to 4096 the FFT route
-(``csrc/fft_smem.cuh:frames_irfft``: an inverse FFT of every frame, the
-overlap-add by classes, no basis; plain version ``frames_irfft_reference`` and
-``overlap_add_classes``), elsewhere the product route (a window-folded basis
-of ``(overlap, 2F, hop)``, the inverse DFT and the overlap-add in one
-product).  ``routes`` counts its launches by route.  ``pghi_invert_fused`` is
-the recurrence followed by the synthesis; the envelope division and the
-centre trim run outside on the small audio tensor, as they do in the JAX
-package.
+Three hand-written kernels (``csrc/pghi.cu``).  The recurrence is two
+launches: the plan (``pghi_plan_kernel``: the magnitude-only work of every
+frame of every clip at once, a block a tile of frames, a warp a frame:
+log-magnitudes, phase gradients, anchor mask, and the two-sided segmented
+fill along bins, shared with the streaming recurrence, giving every bin its
+source bin and ``off = ct[src] + seg``), and the walk (``pghi_walk_kernel``,
+one block a chain: ``phi_t = phi_{t-1}[src] + off`` frame by frame, silent
+bins' phases from an input).  The synthesis (``mag * e^{i phase}``, windowed
+inverse DFT and overlap-add) runs one block per clip and tile of output
+chunks.  The synthesis has two routes, picked by ``n_fft`` alone
+(``frames_fft.fft_covers``): where ``n_fft`` is a power of two from 64 to
+4096 the FFT route (``csrc/fft_smem.cuh:frames_irfft``: an inverse FFT of
+every frame, the overlap-add by classes, no basis; plain version
+``frames_irfft_reference`` and ``overlap_add_classes``), elsewhere the
+product route (a window-folded basis of ``(overlap, 2F, hop)``, the inverse
+DFT and the overlap-add in one product).  ``routes`` counts its launches by
+route.  ``pghi_invert_fused`` is the recurrence followed by the synthesis;
+the envelope division and the centre trim run outside on the small audio
+tensor, as they do in the JAX package.
 
 Entry points: :func:`pghi_phases_fused`, :func:`pghi_phases_bidir`,
 :func:`pghi_synthesize_fused`, :func:`pghi_invert_fused`,
-:func:`pghi_invert_bidir`.  On a CUDA tensor each launches its kernels or
-raises; on a CPU tensor it runs the plain PyTorch version beside it
-(``*_reference``), which repeats the kernel's arithmetic in the kernel's order
-of additions and is what the kernels are held against on the card.
+:func:`pghi_invert_bidir`; the recurrence's two launches apart,
+:func:`pghi_plan` and :func:`pghi_walk`.  On a CUDA tensor each launches its
+kernels or raises; on a CPU tensor it runs the plain PyTorch version beside
+it (``*_reference``), which repeats the kernel's arithmetic in the kernel's
+order of additions and is what the kernels are held against on the card.
 
 Semantics are those of ``ops/pghi.py:pghi_scan(time_stencil="central")``
 followed by the least-squares ISTFT.  Phases are not wrapped; see the note on
 float32 in ``ops/pghi.py``.  ``bidir`` seeds at frame ``T // 2`` and integrates
-both halves from it (two blocks per clip, half the serial depth); its output
-differs from the causal scan's (another integration order).
+both halves from it (two walk blocks per clip, half the serial depth); its
+output differs from the causal scan's (another integration order).
 """
 from __future__ import annotations
 
@@ -60,17 +65,26 @@ __all__ = [
     "pghi_phases_bidir", "pghi_phases_bidir_reference",
     "pghi_invert_bidir", "pghi_invert_bidir_reference",
     "pghi_synthesize_fused", "pghi_synthesize_fused_reference",
+    "pghi_plan", "pghi_plan_reference", "pghi_walk", "pghi_walk_reference", "fill_sources",
     "pghi_fused_available", "pghi_phases_available",
     "ola_supported", "pghi_dispatch",
     "launches", "routes", "reset_launches",
 ]
 
 MAX_SMEM = 232448                 # bytes of shared memory a block may use on sm_90
+MAX_BINS = 4096                   # bins K's recurrence takes
+PLAN_TILES = (4, 2, 1)            # frames a plan block takes, widest first (at most csrc/pghi.cu: kPlanTile)
+WALK_SLOTS = (4, 2)               # ring slots of a walk block, 4 plan rows each (kWalkGroup), most first
+_WALK_QUADS = 2                   # groups of 4 bins a walk chain thread owns, at most (kWalkQuads)
+_FILL_E = 4                       # bins a lane owns in a tile of the fill's scans (kFillE)
+_FILL_TILE = 32 * _FILL_E         # bins a warp's scan covers at a time
 SYNTH_ROWS = (40, 16, 8)          # output chunks per synthesis block, widest first
 _SYN_KC, _SYN_COLS = 32, 256      # staged contraction rows / sample columns (synth_ola.cuh)
 
-#: kernel launches made by the wrappers of this module, by kernel
-launches: Dict[str, int] = {"pghi_phases": 0, "pghi_synthesize": 0}
+#: kernel launches made by the wrappers of this module, by kernel: the
+#: recurrence's plan (``pghi_plan``) and walk (``pghi_phases``, one a
+#: recurrence call), the synthesis
+launches: Dict[str, int] = {"pghi_plan": 0, "pghi_phases": 0, "pghi_synthesize": 0}
 #: the synthesis's launches by route, ``"pghi_synthesize:fft"`` /
 #: ``":product"`` (each also counts in ``launches``)
 routes: Dict[str, int] = {"pghi_synthesize:fft": 0, "pghi_synthesize:product": 0}
@@ -83,13 +97,48 @@ def reset_launches() -> None:
 
 
 # ------------------------------------------------------------------ gates
-def _bins_per_thread(n_bins: int) -> Optional[int]:
-    """Adjacent bins a thread of the recurrence owns (a block has at most 32
-    warps), or None above 4096 bins."""
-    for bpt in (1, 2, 4):
-        if n_bins <= 1024 * bpt:
-            return bpt
-    return None
+def _plan_row(n_bins: int) -> int:
+    """Bins of a row of K's plan: ``n_bins`` rounded up to 8 (16-byte rows)."""
+    return -(-n_bins // 8) * 8
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _plan_smem_bytes(n_bins: int, tile: int) -> int:
+    """Shared memory of one plan block, as ``csrc/pghi.cu`` lays it out: rows
+    of ``n_bins`` rounded up to 4, the magnitudes and logarithms of ``tile +
+    2`` frames; a work area of two float rows and one int16 row a frame (at
+    least the bulk copy of the halo's magnitudes, which it holds first); an
+    mbarrier."""
+    row = -(-n_bins // 4) * 4
+    work = _round16(max(tile * row * 10, _round16(4 * (tile + 2) * n_bins + 32)))
+    return 8 * (tile + 2) * row + work + 16
+
+
+def _walk_smem_bytes(n_bins: int, slots: int) -> int:
+    """Shared memory of one walk block: two phase rows and ``slots`` ring
+    slots of 4 plan rows (a float and an int16 a bin), all of
+    :func:`_plan_row` bins, and an mbarrier a slot."""
+    return _plan_row(n_bins) * (8 + 24 * slots) + 8 * slots
+
+
+def _phases_plan(n_bins: int, T: int) -> Tuple[int, int, int]:
+    """``(tile, warps, slots)`` of K's recurrence, a pure function of
+    ``(n_bins, T)``: the plan block's frames (a warp each; the most of
+    ``PLAN_TILES`` up to ``T`` that fits shared memory: 4 up to 2640 bins, 2
+    above), the walk block's chain warps (a warp for each 128 bins of the
+    plan's rows, at most 16: 5 at 513 bins, 16 above 1920, two groups of 4
+    bins a thread at most; two side warps besides, for the copies and the
+    stores) and its ring slots of 4 plan rows (4, or 2 where 4 do not fit:
+    above 2232 bins).  Every ``n_bins <= 4096`` has a plan at any ``T``."""
+    if not 2 <= n_bins <= MAX_BINS or T < 1:
+        raise ValueError("K's recurrence takes 2 to %d bins and a frame or more" % MAX_BINS)
+    tile = next(t for t in PLAN_TILES if t <= T and _plan_smem_bytes(n_bins, t) <= MAX_SMEM)
+    warps = min(16, -(-_plan_row(n_bins) // 128))
+    slots = next(r for r in WALK_SLOTS if _walk_smem_bytes(n_bins, r) <= MAX_SMEM)
+    return tile, warps, slots
 
 
 def _k_padded(n_bins: int) -> int:
@@ -127,11 +176,11 @@ def _pick_rows(n_fft: int, hop: int) -> Optional[int]:
 
 def pghi_phases_available(n_fft: int, hop_length: int) -> bool:
     """Gate of the phases-only entry points: ``hop | n_fft``, overlap >= 2 and
-    at most 4096 bins (what one block of the recurrence holds)."""
+    at most 4096 bins (the plan's int16 sources; a walk block's ring)."""
     return (
         n_fft % hop_length == 0
         and n_fft // hop_length >= 2
-        and _bins_per_thread(n_fft // 2 + 1) is not None
+        and n_fft // 2 + 1 <= MAX_BINS
     )
 
 
@@ -234,143 +283,184 @@ def _chains(T: int, bidir: bool) -> List[Tuple[List[int], List[int], List[int], 
 
 
 # ------------------------------------------------ plain recurrence (phases)
-def _compose(l, r):
-    """Apply ``l`` (earlier) then ``r``: the maps ``x -> a x + b`` with a
-    distance channel ``d``; ``a`` is 0 or 1, so each channel rounds once."""
-    return (l[0] * r[0], l[1] * r[0] + r[1], l[2] * r[0] + r[2])
+def _constants(gamma: float, n_fft: int, hop: int) -> Tuple[float, float, float]:
+    """``(fmul, 1 / fmul, carrier)`` as both recurrences take them."""
+    fmul = float(gamma) / (hop * n_fft)
+    return fmul, 1.0 / fmul, 2.0 * math.pi * hop / n_fft
 
 
-def _shift(x, s: int):
-    """Elements moved ``s`` places up the last axis, identity maps shifted in."""
-    fill = (1.0, 0.0, 0.0)
-    return tuple(F_.pad(c[..., :-s], (s, 0), value=v) if s < c.shape[-1]
-                 else torch.full_like(c, v) for c, v in zip(x, fill))
+def _fill_compose(l, r):
+    """Apply ``l`` (earlier) then ``r``: segmented sums with head flags, ``(f,
+    b)`` = (the span holds an anchor, the sum of its steps since the last
+    one); a head restarts the sum."""
+    return l[0] | r[0], torch.where(r[0], r[1], l[1] + r[1])
 
 
-def _kogge_stone(x):
-    n, s = x[0].shape[-1], 1
-    while s < n:
-        x = _compose(_shift(x, s), x)
+def _lane_shift(x, s: int):
+    """Elements moved ``s`` places up the last axis (the lanes), empty spans
+    ``(False, 0)`` shifted in."""
+    return tuple(torch.cat([torch.zeros_like(c[..., :s]), c[..., :-s]], dim=-1) for c in x)
+
+
+def _fill_scan(f: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Inclusive segmented sums of ``b`` up the last axis (a multiple of 128
+    long), restarting at the heads ``f``, in the kernel's order of float32
+    additions: a lane's 4 bins of a 128-bin tile in order, a Kogge-Stone
+    scan over the 32 lanes' totals, then for each bin ``compose(compose(the
+    tiles before, the lanes before), its own prefix)``; the tiles' carry is
+    ``compose(carry, the tile's total)``."""
+    lead, n = f.shape[:-1], f.shape[-1]
+    nt = n // _FILL_TILE
+    f = f.reshape(lead + (nt, 32, _FILL_E))
+    b = b.reshape(lead + (nt, 32, _FILL_E))
+    own = [(f[..., 0], b[..., 0])]
+    for e in range(1, _FILL_E):
+        own.append(_fill_compose(own[-1], (f[..., e], b[..., e])))
+    incl, s = own[-1], 1
+    while s < 32:
+        incl = _fill_compose(_lane_shift(incl, s), incl)
         s *= 2
-    return x
+    lprev = _lane_shift(incl, 1)
+    carry = (torch.zeros_like(f[..., 0, :1, 0]), torch.zeros_like(b[..., 0, :1, 0]))
+    out = []
+    for i in range(nt):
+        before = _fill_compose(carry, (lprev[0][..., i, :], lprev[1][..., i, :]))
+        out.append(torch.stack([_fill_compose(before, (o[0][..., i, :], o[1][..., i, :]))[1] for o in own],
+                               dim=-1))
+        carry = _fill_compose(carry, (incl[0][..., i, 31:], incl[1][..., i, 31:]))
+    return torch.stack(out, dim=-3).reshape(lead + (n,))
 
 
-def _block_scan(e, bpt: int):
-    """Inclusive segmented scan up the last axis (length a multiple of
-    ``32 * bpt``), composing in the kernel's order: inside a thread's ``bpt``
-    bins, over the 32 lanes' totals, over the warps' totals, and then
-    ``compose(compose(warps before, lanes before), own prefix)``."""
-    lead = e[0].shape[:-1]
-    n_pad = e[0].shape[-1]
-    e = tuple(c.reshape(lead + (n_pad // (32 * bpt), 32, bpt)) for c in e)
-    cols = [tuple(c[..., j] for c in e) for j in range(bpt)]
-    for j in range(1, bpt):
-        cols[j] = _compose(cols[j - 1], cols[j])
-    incl = _kogge_stone(cols[-1])                        # (..., W, 32)
-    wt = _kogge_stone(tuple(c[..., -1] for c in incl))   # (..., W)
-    wprev = tuple(c[..., None] for c in _shift(wt, 1))
-    before = _compose(wprev, _shift(incl, 1))
-    out = [_compose(before, col) for col in cols]
-    return tuple(
-        torch.stack([o[i] for o in out], dim=-1).reshape(lead + (n_pad,)) for i in range(3)
-    )
+def fill_sources(mag, peak, sig, fs, const):
+    """The fill of both recurrences on every frame at once, the plain version
+    of ``csrc/pghi.cu:pghi_plan_frame``: magnitudes ``mag (..., F)`` float32,
+    the anchors by the peak rule ``peak``, the audible bins ``sig``, the
+    frequency derivatives ``fs`` and a silent bin's constant ``const`` (both
+    float32, or float64 for a float64 run) -> ``(src, seg)``.  In a frame
+    without a peak anchor the onset rule anchors every audible bin equal to
+    the frame's maximum.  An anchor's source is itself, with ``seg = -0.0``;
+    another audible bin's is the nearest anchor below or above (a tie takes
+    the one below), ``seg`` the sum of the trapezoid steps of ``fs`` from it
+    (``_fill_scan``'s order); an audible bin of a frame without an anchor
+    and a silent bin have source -1 and ``seg`` 0 or ``const``."""
+    anch = peak | (~peak.any(dim=-1, keepdim=True) & sig & (mag == mag.amax(dim=-1, keepdim=True)))
+    any_anchor = anch.any(dim=-1, keepdim=True)
+    trap = (fs[..., 1:] + fs[..., :-1]) * 0.5
+    zero = torch.zeros_like(fs[..., :1])
+    sup = torch.cat([zero, trap], dim=-1)
+    sdn = torch.cat([-trap, zero], dim=-1)
+    del trap
+    # the segment sums from the nearest anchor on each side (the downward
+    # scan runs up the flipped padded row, empty spans first)
+    n_bins = mag.shape[-1]
+    pad = (0, -(-n_bins // _FILL_TILE) * _FILL_TILE - n_bins)
+    fp = F_.pad(anch, pad)
+    seg_up = _fill_scan(fp, F_.pad(torch.where(anch, 0.0, sup), pad))[..., :n_bins]
+    seg_dn = _fill_scan(fp.flip(-1), F_.pad(torch.where(anch, 0.0, sdn), pad).flip(-1)).flip(-1)[..., :n_bins]
+    del sup, sdn, fp
+    k = torch.arange(n_bins, device=mag.device)
+    none = 2 * MAX_BINS
+    below = torch.cummax(torch.where(anch, k, -1), dim=-1).values
+    above = torch.cummin(torch.where(anch, k, none).flip(-1), dim=-1).values.flip(-1)
+    du = torch.where(below >= 0, k - below, none)
+    dd = torch.where(above < none, above - k, none)
+    from_below = du <= dd                        # a tie takes the fill from below
+    src = torch.where(from_below, below, above)
+    seg = torch.where(from_below, seg_up, seg_dn)
+    src = torch.where(anch, k, torch.where(any_anchor, src, -1))
+    seg = torch.where(anch, -0.0, torch.where(any_anchor, seg, 0.0))
+    return torch.where(sig, src, -1), torch.where(sig, seg, const)
 
 
-def _run_chain(m, ang, abstol, steps, fmul, carrier, dtype, out):
-    """One chain of the recurrence on ``m (B, T, F)`` float32; writes the
-    stored steps' phases into ``out (B, T, F)`` of ``dtype``.  The masks come
+def _orientation(T: int, bidir: bool) -> Tuple[List[int], List[int], List[float]]:
+    """Per frame ``t`` its previous and next frame in walking order and the
+    walking direction's sign: forward (``t - 1``, ``min(t + 1, T - 1)``,
+    +1; frame -1 is the all-zero frame before the clip), or under ``bidir``
+    backward for ``t < T // 2`` (``t + 1``, ``max(t - 1, 0)``, -1)."""
+    fwd = [not bidir or t >= T // 2 for t in range(T)]
+    return ([t - 1 if f else t + 1 for t, f in enumerate(fwd)],
+            [min(t + 1, T - 1) if f else max(t - 1, 0) for t, f in enumerate(fwd)],
+            [1.0 if f else -1.0 for f in fwd])
+
+
+def _walk_order(T: int, bidir: bool) -> List[List[Tuple[int, bool]]]:
+    """Per chain its steps as ``(frame, stored)``: causal, frames ``0 .. T -
+    1``; ``bidir``, chain 0 ``mid .. T - 1`` and chain 1 first chain 0's seed
+    step (``mid``, unstored), then ``mid - 1 .. 0``."""
+    if not bidir:
+        return [[(t, True) for t in range(T)]]
+    mid = T // 2
+    return [[(t, True) for t in range(mid, T)], [(mid, False)] + [(t, True) for t in range(mid - 1, -1, -1)]]
+
+
+def _plan(m, ang, gamma, n_fft, hop, tolerance, bidir, dtype):
+    """K's plan on ``m (B, T, F)`` float32 -> ``(src, off)``, each ``(B, T,
+    F)``: a bin of frame ``t`` takes ``phi_{t-1}[src] + off`` where ``src >=
+    0``, else ``off``.  ``off = ct[src] + seg``, in ``dtype``; the masks come
     from the float32 magnitudes whatever ``dtype`` is, so a float64 run takes
     the same discrete decisions and differs by rounding only."""
-    fp, fc, fn, sgn, store = steps
     B, T, n_bins = m.shape
     dev = m.device
-    bpt = _bins_per_thread(n_bins)
-    n_pad = -(-n_bins // (32 * bpt)) * 32 * bpt
+    fmul, inv_fmul, carrier = _constants(gamma, n_fft, hop)
+    fp, fn, sgn = _orientation(T, bidir)
     mz = torch.cat([m, m.new_zeros((B, 1, n_bins))], dim=1)   # index -1: the zero frame
-    ix = lambda f: torch.as_tensor(f, device=dev) % (T + 1)
-    Mp, Mc, Mn = (mz.index_select(1, ix(f)) for f in (fp, fc, fn))
+    ip, in_ = (torch.as_tensor(f, device=dev) % (T + 1) for f in (fp, fn))
+    Yz = torch.log(torch.clamp_min(mz, EPS).to(dtype))
+    Yp, Yc, Yn = Yz.index_select(1, ip), Yz[:, :T], Yz.index_select(1, in_)
+    del Yz
     sg = torch.as_tensor(sgn, device=dev, dtype=dtype)[None, :, None]
-    Yp, Yc, Yn = (torch.log(torch.clamp_min(x, EPS).to(dtype)) for x in (Mp, Mc, Mn))
-    k = torch.arange(n_bins, device=dev, dtype=dtype)
-    ck = carrier * k
+    ck = carrier * torch.arange(n_bins, device=dev, dtype=dtype)
 
     def tstep(Y):
         up = torch.cat([Y[..., 1:], Y[..., -1:]], dim=-1)
         dn = torch.cat([Y[..., :1], Y[..., :-1]], dim=-1)
         # times 1 / fmul, as the kernel does (a division by a constant rounds
         # otherwise, by up to an ulp)
-        return ((up - dn) * 0.5) * (1.0 / fmul) + ck
+        return ((up - dn) * 0.5) * inv_fmul + ck
 
     ct = sg * ((tstep(Yp) + tstep(Yc)) * 0.5)
     fs = sg * (-fmul * ((Yn - Yp) * 0.5)) + math.pi
     del Yp, Yc, Yn
-    trap = (fs[..., 1:] + fs[..., :-1]) * 0.5
-    zero = torch.zeros_like(fs[..., :1])
-    sup = torch.cat([zero, trap], dim=-1)
-    sdn = torch.cat([-trap, zero], dim=-1)
-    del fs, trap
-    thr = abstol[:, None, None]
-    sig = Mc > thr
-    mpad = F_.pad(Mc, (1, 1), value=-1.0)
-    anch = sig & (Mp > thr) & (Mc >= mpad[..., :-2]) & (Mc >= mpad[..., 2:])
-    onset = ~anch.any(dim=-1, keepdim=True)
-    anch = anch | (onset & sig & (Mc == Mc.amax(dim=-1, keepdim=True)))
-    any_anchor = anch.any(dim=-1, keepdim=True)
-    del Mp, Mn, mpad
-
-    big = float(10 * n_bins)
-    phi = torch.zeros((B, n_bins), device=dev, dtype=dtype)
-    for s in range(len(fc)):
-        phi = _fill_frame(phi, ct[:, s], anch[:, s], sup[:, s], sdn[:, s], any_anchor[:, s],
-                          sig[:, s], ang[:, fc[s]], bpt, n_pad, big, dtype)
-        if store[s]:
-            out[:, fc[s]] = phi
+    thr = _abstol(m, tolerance)[:, None, None]
+    sig = m > thr
+    mpad = F_.pad(m, (1, 1), value=-1.0)
+    peak = sig & (mz.index_select(1, ip) > thr) & (m >= mpad[..., :-2]) & (m >= mpad[..., 2:])
+    del mz, mpad
+    src, seg = fill_sources(m, peak, sig, fs, ang.to(dtype))
+    return src, torch.where(src >= 0, ct.gather(-1, src.clamp_min(0)) + seg, seg)
 
 
-def _fill_frame(phi, ct, a_s, sup, sdn, any_anchor, sig, ang, bpt, n_pad, big, dtype):
-    """One frame of the recurrence on ``(B, F)`` rows, in the kernel's order:
-    ``phi + ct`` at the anchors, the two-sided segmented fill from them, the
-    anchored / filled select, the silent bins' angles.  Returns the frame's
-    phases."""
-    n_bins = phi.shape[-1]
-    pad = (0, n_pad - n_bins)
-    phi_t = phi + ct
-    a0 = (~a_s).to(dtype)
-    b_up = torch.where(a_s, phi_t, sup)
-    b_dn = torch.where(a_s, phi_t, sdn)
-    # both directions in one scan: the downward one runs up the flipped
-    # padded row (identity maps first, which change nothing)
-    a2 = torch.stack([F_.pad(a0, pad, value=1.0), F_.pad(a0, pad, value=1.0).flip(-1)])
-    b2 = torch.stack([F_.pad(b_up, pad), F_.pad(b_dn, pad).flip(-1)])
-    d2 = torch.stack([F_.pad(a0, pad), F_.pad(a0, pad).flip(-1)])
-    sa, sb, sd = _block_scan((a2, b2, d2), bpt)
-    a_u, f_up, d_up = sa[0, :, :n_bins], sb[0, :, :n_bins], sd[0, :, :n_bins]
-    a_d, f_dn, d_dn = (x[1].flip(-1)[:, :n_bins] for x in (sa, sb, sd))
-    du = torch.where(a_u == 0, d_up, big)
-    dd = torch.where(a_d == 0, d_dn, big)
-    filled = torch.where(du <= dd, f_up, f_dn)     # a tie takes the fill from below
-    filled = torch.where(any_anchor, filled, torch.zeros_like(filled))
-    phi = torch.where(a_s, phi_t, filled)
-    return torch.where(sig, phi, ang.to(dtype))
+def _walk(src, off, bidir):
+    """K's walk over a plan ``(B, T, >= F)``: per chain, ``phi = phi[src] +
+    off`` (``off`` where ``src < 0``) frame by frame from zeros, the kernel's
+    one addition a bin."""
+    B, T, n = off.shape
+    src = src.long()
+    has, at = src >= 0, src.clamp_min(0)
+    out = torch.empty_like(off)
+    for chain in _walk_order(T, bidir):
+        phi = off.new_zeros((B, n))
+        for t, store in chain:
+            phi = torch.where(has[:, t], phi.gather(1, at[:, t]) + off[:, t], off[:, t])
+            if store:
+                out[:, t] = phi
+    return out
 
 
 def _phases_reference(m, ang, gamma, n_fft, hop, tolerance, bidir, dtype):
-    T = m.shape[1]
-    fmul = float(gamma) / (hop * n_fft)
-    carrier = 2.0 * math.pi * hop / n_fft
-    out = torch.empty(m.shape, device=m.device, dtype=dtype)
-    for steps in _chains(T, bidir and T >= 4):
-        _run_chain(m, ang, _abstol(m, tolerance), steps, fmul, carrier, dtype, out)
-    return out
+    bidir = bidir and m.shape[1] >= 4
+    return _walk(*_plan(m, ang, gamma, n_fft, hop, tolerance, bidir, dtype), bidir)
 
 
 def pghi_phases_fused_reference(
     mag, gamma, n_fft, hop_length, tolerance=1e-2, generator=None, angles=None,
     dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`pghi_phases_fused`.  ``dtype=float64``
-    runs the same recurrence (same masks, same order) in double precision:
-    the yardstick for what float32 costs at a given clip length."""
+    """Plain PyTorch version of :func:`pghi_phases_fused`: the plan over
+    every frame at once (:func:`pghi_plan_reference`), then the walk, in the
+    kernels' order of float32 operations.  ``dtype=float64`` runs the same
+    recurrence (same masks, same order) in double precision: the yardstick
+    for what float32 costs at a given clip length."""
     m, batch_shape = _as_btf(mag, n_fft)
     ang = _angles_for(m, angles, generator)
     ph = _phases_reference(m, ang, gamma, n_fft, hop_length, tolerance, False, dtype)
@@ -386,6 +476,29 @@ def pghi_phases_bidir_reference(
     ang = _angles_for(m, angles, generator)
     ph = _phases_reference(m, ang, gamma, n_fft, hop_length, tolerance, True, dtype)
     return ph.reshape(batch_shape + ph.shape[1:])
+
+
+def _padded_plan(src, off):
+    """``(src int16, off)`` padded from F to the kernels' ``Fp`` bins with
+    ``(-1, 0)``."""
+    pad = (0, _plan_row(src.shape[-1]) - src.shape[-1])
+    return F_.pad(src, pad, value=-1).to(torch.int16), F_.pad(off, pad)
+
+
+def pghi_plan_reference(mag, gamma, n_fft, hop_length, tolerance=1e-2, bidir=False, angles=None):
+    """Plain PyTorch version of :func:`pghi_plan`: ``mag (B, T, F)``, the
+    silent bins' ``angles`` of its shape -> the plan ``(src, off)``, each
+    ``(B, T, Fp)`` (int16 and float32, padded with ``(-1, 0)``)."""
+    m, _ = _as_btf(mag, n_fft)
+    ang = _angles_for(m, angles, None)
+    return _padded_plan(*_plan(m, ang, gamma, n_fft, hop_length, tolerance, bidir and m.shape[1] >= 4,
+                               torch.float32))
+
+
+def pghi_walk_reference(src, off, n_bins: int, bidir=False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`pghi_walk`: a plan ``(B, T, Fp)`` ->
+    phases ``(B, T, n_bins)``."""
+    return _walk(src, off, bidir and src.shape[1] >= 4)[..., :n_bins].contiguous()
 
 
 # ------------------------------------------------------------- synthesis
@@ -459,7 +572,7 @@ def _stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def _launch_phases(m, ang, gamma, n_fft, hop, tolerance, bidir) -> torch.Tensor:
+def _require_phases(n_fft: int, hop: int) -> None:
     if pghi_dispatch("phases", n_fft, hop) == "eager":
         raise ValueError(
             "the CUDA PGHI recurrence does not cover n_fft=%d hop=%d (needs hop | n_fft "
@@ -467,20 +580,84 @@ def _launch_phases(m, ang, gamma, n_fft, hop, tolerance, bidir) -> torch.Tensor:
         )
     if not pghi_phases_available(n_fft, hop):
         raise NotImplementedError(
-            "the CUDA PGHI recurrence holds a frame's bins in one block, at most 4096; "
-            "n_fft=%d has %d (ROADMAP Queue 2, K6)" % (n_fft, n_fft // 2 + 1)
+            "the CUDA PGHI recurrence takes at most %d bins; n_fft=%d has %d (ROADMAP Queue 2, K6)"
+            % (MAX_BINS, n_fft, n_fft // 2 + 1)
         )
+
+
+def _plan_arrays(B: int, T: int, n_bins: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plan's scratch ``(src int16, off float32)``, each ``(B, T, Fp)``."""
+    fp = _plan_row(n_bins)
+    return (torch.empty((B, T, fp), dtype=torch.int16, device=device),
+            torch.empty((B, T, fp), dtype=torch.float32, device=device))
+
+
+def _launch_phases(m, ang, gamma, n_fft, hop, tolerance, bidir) -> torch.Tensor:
+    """K's recurrence: the plan and the walk, one call of ``att_pghi_phases``
+    on the current stream, the plan in scratch from the caching allocator."""
+    _require_phases(n_fft, hop)
     B, T, n_bins = m.shape
     out = torch.empty_like(m)
+    src, off = _plan_arrays(B, T, n_bins, m.device)
     abstol = _abstol(m, tolerance).contiguous()
     lib = _build.load_library()
     with torch.cuda.device(m.device):
         code = lib.att_pghi_phases(
-            m.data_ptr(), ang.data_ptr(), abstol.data_ptr(), out.data_ptr(), B, T, n_bins,
-            float(gamma) / (hop * n_fft), (hop * n_fft) / float(gamma), 2.0 * math.pi * hop / n_fft,
-            int(bidir and T >= 4), _bins_per_thread(n_bins), _stream(),
+            m.data_ptr(), ang.data_ptr(), abstol.data_ptr(), out.data_ptr(), src.data_ptr(), off.data_ptr(),
+            B, T, n_bins, *_constants(gamma, n_fft, hop), int(bidir and T >= 4), *_phases_plan(n_bins, T),
+            _stream(),
         )
     _build.check(code, "pghi_phases")
+    launches["pghi_plan"] += 1
+    launches["pghi_phases"] += 1
+    return out
+
+
+def pghi_plan(mag, gamma, n_fft, hop_length, tolerance=1e-2, bidir=False, angles=None):
+    """K's plan alone (the recurrence's first launch): ``mag (B, T, F)`` and
+    the silent bins' ``angles`` of its shape -> ``(src, off)``, each ``(B, T,
+    Fp)``, ``Fp`` = F rounded up to 8 (int16 and float32, padded with ``(-1,
+    0)``).  On a CPU tensor :func:`pghi_plan_reference`."""
+    if not mag.is_cuda:
+        return pghi_plan_reference(mag, gamma, n_fft, hop_length, tolerance, bidir, angles)
+    _require_phases(n_fft, hop_length)
+    m, _ = _as_btf(mag, n_fft)
+    ang = _angles_for(m, angles, None)
+    B, T, n_bins = m.shape
+    src, off = _plan_arrays(B, T, n_bins, m.device)
+    abstol = _abstol(m, tolerance).contiguous()
+    lib = _build.load_library()
+    with torch.cuda.device(m.device):
+        code = lib.att_pghi_plan(
+            m.data_ptr(), ang.data_ptr(), abstol.data_ptr(), src.data_ptr(), off.data_ptr(), B, T, n_bins,
+            *_constants(gamma, n_fft, hop_length), int(bidir and T >= 4), _phases_plan(n_bins, T)[0], _stream(),
+        )
+    _build.check(code, "pghi_plan")
+    launches["pghi_plan"] += 1
+    return src, off
+
+
+def pghi_walk(src: torch.Tensor, off: torch.Tensor, n_bins: int, bidir=False) -> torch.Tensor:
+    """K's walk alone (the recurrence's second launch) over a plan from
+    :func:`pghi_plan` -> phases ``(B, T, n_bins)``.  On a CPU tensor
+    :func:`pghi_walk_reference`."""
+    if not off.is_cuda:
+        return pghi_walk_reference(src, off, n_bins, bidir)
+    B, T, fp = off.shape
+    src, off = src.contiguous(), off.contiguous()
+    if (fp != _plan_row(n_bins) or src.dtype != torch.int16 or off.dtype != torch.float32
+            or tuple(src.shape) != tuple(off.shape) or src.data_ptr() % 16 or off.data_ptr() % 16):
+        raise ValueError("expected a plan of (B, T, %d) int16 sources and float32 offsets, 16-byte aligned"
+                         % _plan_row(n_bins))
+    out = torch.empty((B, T, n_bins), dtype=torch.float32, device=off.device)
+    _, warps, slots = _phases_plan(n_bins, T)
+    lib = _build.load_library()
+    with torch.cuda.device(off.device):
+        code = lib.att_pghi_walk(
+            src.data_ptr(), off.data_ptr(), out.data_ptr(), B, T, n_bins,
+            int(bidir and T >= 4), warps, slots, _stream(),
+        )
+    _build.check(code, "pghi_walk")
     launches["pghi_phases"] += 1
     return out
 

@@ -107,9 +107,9 @@ below), a constant where the frame has no anchor (0) or the bin is silent
 the bin.  The serial chain is then ``phi_t[k] = (phi_{t-1}[src] +
 ct[src]) + seg[k]`` a bin, and the re-wrap at chunk boundaries.  The
 segment sums are segmented scans in a fixed order of float32 additions
-(:func:`_fill_scan`: tiles of 128 bins, 4 a lane, Kogge-Stone over the
-lanes, the tiles' carry): local sums, with no cancellation between numbers
-of the phases' size.  The plain version (:func:`rt_pghi_phases_reference`)
+(``pghi_kernel.fill_sources``, shared with K's offline recurrence: tiles of
+128 bins, 4 a lane, Kogge-Stone over the lanes, the tiles' carry): local
+sums, with no cancellation between numbers of the phases' size.  The plain version (:func:`rt_pghi_phases_reference`)
 repeats the kernel's operations in order.
 
 ``pghi_gl``.  The chunk's ``T_c + lookahead`` frames (the pending ones
@@ -157,7 +157,7 @@ from .frames_fft import (
     irfft_window,
     overlap_add_classes,
 )
-from .pghi_kernel import ola_supported
+from .pghi_kernel import _constants, fill_sources, ola_supported
 
 __all__ = [
     "fused_forward_session_available", "make_fused_forward_session",
@@ -179,8 +179,6 @@ __all__ = [
 
 MAX_ROWS = 40                     # frames one block's analysis holds (8 warps x 5 rows)
 RT_MAX_BINS = 4096                # bins the RT-PGHI recurrence takes
-_FILL_E = 4                       # bins a lane owns in a tile of the fill's scans
-_FILL_TILE = 32 * _FILL_E         # bins a warp's scan covers at a time
 _RT_WARPS = 24                    # warps of the recurrence's block, at most
 _RT_STAGE = 16                    # frames of a stage, at most (csrc/pghi.cu: kRtStage)
 MAX_OVERLAP = 8
@@ -761,54 +759,6 @@ def session_magnitude_reference(x2d, window, n_fft: int, hop: int, n_frames: int
     return torch.sqrt(re * re + im * im)
 
 
-def _rt_constants(gamma: float, n_fft: int, hop: int):
-    """``(fmul, 1 / fmul, carrier)`` as the recurrence takes them."""
-    fmul = float(gamma) / (hop * n_fft)
-    return fmul, 1.0 / fmul, 2.0 * math.pi * hop / n_fft
-
-
-def _fill_compose(l, r):
-    """Apply ``l`` (earlier) then ``r``: segmented sums with head flags, ``(f,
-    b)`` = (the span holds an anchor, the sum of its steps since the last
-    one); a head restarts the sum."""
-    return l[0] | r[0], torch.where(r[0], r[1], l[1] + r[1])
-
-
-def _lane_shift(x, s: int):
-    """Elements moved ``s`` places up the last axis (the lanes), empty spans
-    ``(False, 0)`` shifted in."""
-    return tuple(torch.cat([torch.zeros_like(c[..., :s]), c[..., :-s]], dim=-1) for c in x)
-
-
-def _fill_scan(f: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Inclusive segmented sums of ``b`` up the last axis (a multiple of 128
-    long), restarting at the heads ``f``, in the kernel's order of float32
-    additions: a lane's 4 bins of a 128-bin tile in order, a Kogge-Stone
-    scan over the 32 lanes' totals, then for each bin ``compose(compose(the
-    tiles before, the lanes before), its own prefix)``; the tiles' carry is
-    ``compose(carry, the tile's total)``."""
-    lead, n = f.shape[:-1], f.shape[-1]
-    nt = n // _FILL_TILE
-    f = f.reshape(lead + (nt, 32, _FILL_E))
-    b = b.reshape(lead + (nt, 32, _FILL_E))
-    own = [(f[..., 0], b[..., 0])]
-    for e in range(1, _FILL_E):
-        own.append(_fill_compose(own[-1], (f[..., e], b[..., e])))
-    incl, s = own[-1], 1
-    while s < 32:
-        incl = _fill_compose(_lane_shift(incl, s), incl)
-        s *= 2
-    lprev = _lane_shift(incl, 1)
-    carry = (torch.zeros_like(f[..., 0, :1, 0]), torch.zeros_like(b[..., 0, :1, 0]))
-    out = []
-    for i in range(nt):
-        before = _fill_compose(carry, (lprev[0][..., i, :], lprev[1][..., i, :]))
-        out.append(torch.stack([_fill_compose(before, (o[0][..., i, :], o[1][..., i, :]))[1] for o in own],
-                               dim=-1))
-        carry = _fill_compose(carry, (incl[0][..., i, 31:], incl[1][..., i, 31:]))
-    return torch.stack(out, dim=-3).reshape(lead + (n,))
-
-
 def rt_fill_plan(mag, angles, gamma: float, n_fft: int, hop: int, tolerance: float, chunk_frames: int,
                  prev_mag=None):
     """The magnitude-only part of the RT-PGHI recurrence, for every frame at
@@ -825,7 +775,7 @@ def rt_fill_plan(mag, angles, gamma: float, n_fft: int, hop: int, tolerance: flo
     if T % T_c:
         raise ValueError("%d frames are no whole number of %d-frame chunks" % (T, T_c))
     dev, dt = mag.device, torch.float32
-    fmul, inv_fmul, carrier = _rt_constants(gamma, n_fft, hop)
+    fmul, inv_fmul, carrier = _constants(gamma, n_fft, hop)
     prev = mag.new_zeros((B, 2, n_bins)) if prev_mag is None else prev_mag.to(dt)
     mz = torch.cat([prev, mag], dim=1)
     Yz = torch.log(torch.clamp_min(mz, EPS))
@@ -837,42 +787,13 @@ def rt_fill_plan(mag, angles, gamma: float, n_fft: int, hop: int, tolerance: flo
     Y, Y1, Y2 = Yz[:, 2:], Yz[:, 1:-1], Yz[:, :-2]
     fs = (-fmul) * (((3.0 * Y - 4.0 * Y1) + Y2) * 0.5) + math.pi
     del Yz, up, dn, ts, Y, Y1, Y2
-    trap = (fs[..., 1:] + fs[..., :-1]) * 0.5
-    zero = torch.zeros_like(fs[..., :1])
-    sup = torch.cat([zero, trap], dim=-1)
-    sdn = torch.cat([-trap, zero], dim=-1)
-    del fs, trap
     mx = mag.reshape(B, T // T_c, T_c * n_bins).amax(dim=-1)
     thr = torch.clamp_min(tolerance * mx, EPS).repeat_interleave(T_c, dim=1)[..., None]
     sig = mag > thr
     mpad = torch.nn.functional.pad(mag, (1, 1), value=-1.0)
-    anch = sig & (mz[:, 1:-1] > thr) & (mag >= mpad[..., :-2]) & (mag >= mpad[..., 2:])
-    onset = ~anch.any(dim=-1, keepdim=True)
-    anch = anch | (onset & sig & (mag == mag.amax(dim=-1, keepdim=True)))
-    any_anchor = anch.any(dim=-1, keepdim=True)
-    del mpad, onset, mz
-
-    # the segment sums from the nearest anchor on each side (the downward
-    # scan runs up the flipped padded row, empty spans first)
-    pad = (0, -(-n_bins // _FILL_TILE) * _FILL_TILE - n_bins)
-    fp = torch.nn.functional.pad(anch, pad)
-    seg_up = _fill_scan(fp, torch.nn.functional.pad(torch.where(anch, 0.0, sup), pad))[..., :n_bins]
-    seg_dn = _fill_scan(fp.flip(-1), torch.nn.functional.pad(torch.where(anch, 0.0, sdn), pad).flip(-1))
-    seg_dn = seg_dn.flip(-1)[..., :n_bins]
-    del sup, sdn, fp
-    k = torch.arange(n_bins, device=dev)
-    none = 2 * RT_MAX_BINS
-    below = torch.cummax(torch.where(anch, k, -1), dim=-1).values
-    above = torch.cummin(torch.where(anch, k, none).flip(-1), dim=-1).values.flip(-1)
-    du = torch.where(below >= 0, k - below, none)
-    dd = torch.where(above < none, above - k, none)
-    from_below = du <= dd                        # a tie takes the fill from below
-    src = torch.where(from_below, below, above)
-    seg = torch.where(from_below, seg_up, seg_dn)
-    src = torch.where(anch, k, torch.where(any_anchor, src, -1))
-    seg = torch.where(anch, -0.0, torch.where(any_anchor, seg, 0.0))
-    src = torch.where(sig, src, -1)
-    seg = torch.where(sig, seg, angles[:, :T].to(dt))
+    peak = sig & (mz[:, 1:-1] > thr) & (mag >= mpad[..., :-2]) & (mag >= mpad[..., 2:])
+    del mpad, mz
+    src, seg = fill_sources(mag, peak, sig, fs, angles[:, :T].to(dt))
     return src, ct, seg
 
 
@@ -976,7 +897,7 @@ def _launch_rt_pghi(mag, angles, gamma, n_fft, hop, tolerance, T_c, prev_mag=Non
     if seeded:
         prev_mag = _checked_f32(prev_mag, mag.device, (B, 2, F), "prev_mag")
         prev_phase = _checked_f32(prev_phase, mag.device, (B, F), "prev_phase")
-    fmul, inv_fmul, carrier = _rt_constants(gamma, n_fft, hop)
+    fmul, inv_fmul, carrier = _constants(gamma, n_fft, hop)
     out = torch.empty_like(mag)
     lib = _build.load_library()
     with torch.cuda.device(mag.device):

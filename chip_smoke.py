@@ -102,6 +102,8 @@ PEAK_FP32_FLOPS = 67e12        # H100 SXM fp32 outside the tensor cores, data sh
 # load (about 30 cycles), two dependent float adds (4 each), a named barrier
 # of the chain's warps (about 20)
 RT_STEP_CYCLES = 58
+# the same for K's walk: a shared-memory load, one float add, a block barrier
+K_STEP_CYCLES = 54
 
 
 def log(msg: str) -> None:
@@ -468,8 +470,16 @@ def unit_spec(mag: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
 
 
 def check_pghi(name, mag, n_fft, hop, window, gamma, seed, results, n64=4):
-    """Kernel K's four entry points against their plain versions, and the
-    recurrence against its float64 run.
+    """Kernel K's entry points against their plain versions, the recurrence
+    against its float64 run, and the recurrence's two launches apart.
+
+    The plan (``pghi_plan``) against its plain version: every bin's source
+    the same (the anchors and the distances come from float32 comparisons of
+    the same magnitudes), ``off`` within 1e-6 of its largest value plus 1e-5
+    rad (measured bit-identical where the card's logf is torch's).  The walk
+    on the kernel's plan against the plain walk on the same plan:
+    bit-identical (a gather and one float32 addition a bin, in the same
+    order).
 
     Phases are unwrapped float32 sums (1e5 rad and more late in a long clip,
     one ulp 0.01 to 0.06 rad there), so they are compared on what is used of
@@ -494,8 +504,26 @@ def check_pghi(name, mag, n_fft, hop, window, gamma, seed, results, n64=4):
     kw = dict(tolerance=1e-2, angles=angles)
     sub = slice(0, min(n64, mag.shape[0]))
     kw64 = dict(tolerance=1e-2, angles=angles[sub])
+    F = mag.shape[-1]
     for label, kern, plain in (("phases", pk.pghi_phases_fused, pk.pghi_phases_fused_reference),
                                ("bidir phases", pk.pghi_phases_bidir, pk.pghi_phases_bidir_reference)):
+        bidir = label != "phases"
+        src_k, off_k = pk.pghi_plan(mag, gamma, n_fft, hop, 1e-2, bidir, angles=angles)
+        src_p, off_p = pk.pghi_plan_reference(mag, gamma, n_fft, hop, 1e-2, bidir, angles=angles)
+        walk_k = pk.pghi_walk(src_k, off_k, F, bidir)
+        walk_p = pk.pghi_walk_reference(src_k, off_k, F, bidir)
+        torch.cuda.synchronize()
+        e_off = (off_k - off_p).abs().max().item()
+        tol_off = 1e-6 * off_p.abs().max().item() + 1e-5
+        log(f"  K {name} {label} plan {pk._phases_plan(F, mag.shape[1])}: sources equal "
+            f"{torch.equal(src_k, src_p)}, off vs plain {e_off:.3g} (tol {tol_off:.3g}; bit-identical "
+            f"{torch.equal(off_k, off_p)}, {100 * (off_k != off_p).float().mean().item():.4f}% of bins differ); "
+            f"the walk on it bit-identical {torch.equal(walk_k, walk_p)}")
+        require(torch.equal(src_k, src_p) and e_off <= tol_off, f"K {name} {label}: the plan disagrees with plain")
+        require(torch.equal(walk_k, walk_p), f"K {name} {label}: the walk is not its plain version bit for bit")
+        results["K_plan"] = max(results.get("K_plan", 0.0), e_off)
+        results["K_walk"] = max(results.get("K_walk", 0.0), (walk_k - walk_p).abs().max().item())
+        del src_k, off_k, src_p, off_p, walk_k, walk_p
         ph_k = kern(mag, gamma, n_fft, hop, **kw)
         ph_p = plain(mag, gamma, n_fft, hop, **kw)
         ph_64 = plain(mag[sub], gamma, n_fft, hop, dtype=torch.float64, **kw64)
@@ -512,7 +540,8 @@ def check_pghi(name, mag, n_fft, hop, window, gamma, seed, results, n64=4):
             f"{ph_p.abs().max().item():.3g}); vs the float64 recurrence: plain {e_p64:.3e}, kernel {e_k64:.3e}")
         require(e_kp <= tol, f"K {name} {label}: kernel disagrees with plain")
         require(e_k64 <= 1.5 * e_p64 + 1e-4, f"K {name} {label}: kernel further from float64 than plain")
-        results["K_phases"] = max(results.get("K_phases", 0.0), e_kp)
+        key = "K_bidir" if bidir else "K_phases"
+        results[key] = max(results.get(key, 0.0), e_kp)
         results.setdefault("K_f64", {})[f"{name} {label}"] = (
             e_p64, e_k64, (ph_p[sub].double() - ph_64).abs().max().item(), ph_64.abs().max().item())
         # synthesis of the kernel's own phases: kernel vs plain.  The FFT
@@ -1521,7 +1550,7 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     got, n_l = {k: v for k, v in pk.launches.items() if v}, launched()
     y_f = pk.pghi_invert_fused(mag, st.gamma, n_fft, hop, st.inv_window, tolerance=st.tolerance, angles=ang)
     log(f"  STFT(1200, 300) pghi: launches {got}; the same as pghi_invert_fused: {torch.equal(y_k, y_f)}")
-    require(got == {"pghi_phases": 1, "pghi_synthesize": 1} and n_l == 2 and torch.equal(y_k, y_f)
+    require(got == {"pghi_plan": 1, "pghi_phases": 1, "pghi_synthesize": 1} and n_l == 3 and torch.equal(y_k, y_f)
             and pk.routes["pghi_synthesize:product"] == 2, "STFT(1200, 300) pghi must run K, its synthesis "
             "on the product route")
     counts["pghi_synthesize:product"] += 1
@@ -1733,7 +1762,7 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     torch.cuda.synchronize()
     got = {k: v for k, v in pk.routes.items() if v}
     log(f"  DGT(768, 256) pghi invert: launches { {k: v for k, v in pk.launches.items() if v} }, routes {got}")
-    require(got == {"pghi_synthesize:product": 1} and pk.launches["pghi_phases"] == 1
+    require(got == {"pghi_synthesize:product": 1} and pk.launches["pghi_phases"] == 1 and pk.launches["pghi_plan"] == 1
             and torch.isfinite(rec).all().item(), "DGT(768, 256) pghi: K's synthesis must take the product route")
     counts["pghi_synthesize:product"] += 1
     g_e = torch.Generator(device=dev).manual_seed(dgt.seed)
@@ -1971,6 +2000,23 @@ def main() -> int:
             == pghi_kernel._synth_smem_bytes(rows, n_fft_s // hop_s, kp),
             "PGHI synthesis shared-memory size: wrapper and source disagree",
         )
+    # K's recurrence: the plan's and the walk's blocks as _phases_plan picks
+    # them, and what the entries refuse before any launch (a plan tile over 4
+    # frames, more than 4096 bins, a walk block too narrow for its bins, a
+    # ring of neither 2 nor 4 slots)
+    for f_s in (2, 33, 257, 513, 1025, 2049, 2232, 2233, 4096):
+        for t_s in (1, 3, 690):
+            tile_s, _, slots_s = pghi_kernel._phases_plan(f_s, t_s)
+            require(lib.att_pghi_plan_smem_bytes(f_s, tile_s) == pghi_kernel._plan_smem_bytes(f_s, tile_s)
+                    <= ff.MAX_SMEM and lib.att_pghi_walk_smem_bytes(f_s, slots_s)
+                    == pghi_kernel._walk_smem_bytes(f_s, slots_s) <= ff.MAX_SMEM,
+                    "K's plan / walk shared-memory size: wrapper and source disagree")
+    require(lib.att_pghi_plan(None, None, None, None, None, 1, 32, 513, 1.0, 1.0, 1.0, 0, 5, None) == 1
+            and lib.att_pghi_plan(None, None, None, None, None, 1, 32, 4097, 1.0, 1.0, 1.0, 0, 1, None) == 1
+            and lib.att_pghi_walk(None, None, None, 1, 32, 513, 0, 2, 16, None) == 1
+            and lib.att_pghi_walk(None, None, None, 1, 32, 513, 0, 3, 3, None) == 1,
+            "K's recurrence: a plan tile over 4 frames, 4097 bins, 2 walk warps for 513 bins or 3 ring slots "
+            "must be refused")
     for tile_t, chain in ((64, 4), (64, 1), (32, 3)):
         require(
             lib.att_gl_smem_bytes(tile_t, chain, N_FFT // HOP, HOP)
@@ -2985,7 +3031,7 @@ def main() -> int:
     dgt_counts = {**spectral.launches, **glstep.launches, **pghi_kernel.launches}
     log(f"  fit + forward {1e3 * (t1 - t0):.1f} ms, invert (PGHI) {1e3 * (t2 - t1):.1f} ms; "
         f"launches {dgt_counts}")
-    for k in ("fused_melspec_fullk", "fused_melspec_stats_fullk", "pghi_phases", "pghi_synthesize"):
+    for k in ("fused_melspec_fullk", "fused_melspec_stats_fullk", "pghi_plan", "pghi_phases", "pghi_synthesize"):
         require(dgt_counts[k] > 0, f"kernel {k} was not launched on the DGT path")
     log(f"  E and F by route: {spectral.routes}; K's synthesis by route: {pghi_kernel.routes}")
     for k in ("fused_melspec_fullk", "fused_melspec_stats_fullk"):
@@ -2997,7 +3043,7 @@ def main() -> int:
     counts.update({k: v for k, v in spectral.routes.items() if "_fullk:" in k})   # A and B's: phase 4
     counts.update(pghi_kernel.routes)
     counts.update({k: dgt_counts[k] for k in ("fused_melspec_fullk", "fused_melspec_stats_fullk",
-                                              "pghi_phases", "pghi_synthesize")})
+                                              "pghi_plan", "pghi_phases", "pghi_synthesize")})
     require(tuple(y_dgt.shape) == (B, n_frames, N_FFT // 2 + 1), f"DGT magnitude shape {tuple(y_dgt.shape)}")
     require(torch.isfinite(y_dgt).all().item(), "DGT magnitude not finite")
     require(tuple(rec_dgt.shape) == (B, 1, HOP * (n_frames - 1)), f"PGHI audio shape {tuple(rec_dgt.shape)}")
@@ -3043,6 +3089,27 @@ def main() -> int:
         f"{n_e}; eager pghi_scan + istft there {s_eager:.5f} (must be < {bound:.5f})")
     require(s_kernel_e < bound, "kernel PGHI converges worse than the eager scan")
     del ph_e, rec_e, rec_dgt
+    # the bidirectional inversion through the entry point: K's recurrence
+    # with two walk blocks a clip (counted for row K_bidir), converging like
+    # the causal kernels (the JAX package's contract for bidir,
+    # tests/test_pallas.py:790)
+    pghi_kernel.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec_bid = dgt_fit.invert(y_dgt, inversion_mode="pghi_bidir")
+    torch.cuda.synchronize()
+    bid_ms = 1e3 * (time.perf_counter() - t0)
+    bid_counts = {k: v for k, v in pghi_kernel.launches.items() if v}
+    require(bid_counts == {"pghi_plan": 1, "pghi_phases": 1, "pghi_synthesize": 1}
+            and tuple(rec_bid.shape) == (B, 1, HOP * (n_frames - 1)) and torch.isfinite(rec_bid).all().item(),
+            f"DGT pghi_bidir invert: launches {bid_counts}, audio {tuple(rec_bid.shape)}")
+    counts["pghi_bidir"] = bid_counts["pghi_phases"]
+    s_bid = dgt_convergence(rec_bid.squeeze(-2)[:n_e], dgt_target[:n_e])
+    bound_b = max(1.15 * s_kernel_e, s_kernel_e + 0.02)
+    log(f"  invert (pghi_bidir) {bid_ms:.1f} ms; launches {bid_counts}; spectral convergence on the first {n_e} "
+        f"clips {s_bid:.5f} (the causal kernels' {s_kernel_e:.5f}; must be < {bound_b:.5f})")
+    require(s_bid < bound_b, "kernel bidirectional PGHI converges worse than the causal kernels")
+    del rec_bid
 
     # ------------------------------------------ 4c. the DGT + PolarIF chain
     log(f"[4c] chain R: Mono + DGT({N_FFT}, {HOP}) + PolarIF() (bipolar mel log1p magnitude, bipolar "
@@ -3187,7 +3254,8 @@ def main() -> int:
     gl_inv_ms = 1e3 * (t1 - t0)
     log(f"  invert (pghi_gl) {gl_inv_ms:.1f} ms; launches {gl_counts}, J's routes "
         f"{ {k: v for k, v in glstep.routes.items() if v} }")
-    require(gl_counts["pghi_phases"] == 1 and gl_counts["gl_momentum_fullk"] == dgt_f.gl_iterations
+    require(gl_counts["pghi_plan"] == 1 and gl_counts["pghi_phases"] == 1
+            and gl_counts["gl_momentum_fullk"] == dgt_f.gl_iterations
             and glstep.routes["gl_momentum_fullk:fft"] == dgt_f.gl_iterations
             and gl_counts["pghi_synthesize"] == 0, "D': expected 1 recurrence and 30 J launches on the FFT route")
     counts["gl_momentum_fullk"] = gl_counts["gl_momentum_fullk"]
@@ -3455,8 +3523,15 @@ def main() -> int:
     n_audio = float(B * (Tn + ov - 1) * HOP)
     # recurrence: magnitudes read, phases written, angles read at the silent
     # bins only (this run's share); three logarithms, the gradients and the
-    # two scans are some 150 operations per bin
+    # two scans are some 150 operations per bin.  Its plan reads the
+    # magnitudes and those angles and writes (B, T, Fp) int16 sources and
+    # float offsets; its walk reads that plan and writes the phases, one
+    # addition a bin
     phases_bound = bound_of(4.0 * n_el * (2.0 + silent), 150.0 * n_el)
+    n_plan = float(B * Tn * pghi_kernel._plan_row(F))
+    k_src, k_off = pghi_kernel.pghi_plan(dgt_target, gamma, N_FFT, HOP, dgt_f.tolerance, False, angles=k_angles)
+    plan_bound = bound_of(4.0 * n_el * (1.0 + silent) + 6.0 * n_plan, 150.0 * n_el)
+    walk_bound = bound_of(6.0 * n_plan + 4.0 * n_el, n_el)
     # synthesis: magnitudes and phases read, the overlap-add signal written;
     # an inverse FFT per frame, sincos and the products per bin, the window.
     # Its FFT route runs, per block of R output chunks, frames_irfft of R + 2
@@ -3548,6 +3623,23 @@ def main() -> int:
              run=lambda: pghi_kernel.pghi_phases_fused(dgt_target, gamma, N_FFT, HOP,
                                                        tolerance=dgt_f.tolerance, angles=k_angles),
              plain=lambda: pghi_kernel.pghi_phases_fused_reference(
+                 dgt_target, gamma, N_FFT, HOP, tolerance=dgt_f.tolerance, angles=k_angles),
+             plain_once=True, library=None, bound=phases_bound, ceiling=ceiling_of(150.0 * n_el)),
+        dict(key="K_plan", name="pghi_plan", source=pghi_src, replaces=pghi_tpu, launches=counts["pghi_plan"],
+             run=lambda: pghi_kernel.pghi_plan(dgt_target, gamma, N_FFT, HOP, dgt_f.tolerance, False,
+                                               angles=k_angles),
+             plain=lambda: pghi_kernel.pghi_plan_reference(dgt_target, gamma, N_FFT, HOP, dgt_f.tolerance, False,
+                                                           angles=k_angles),
+             plain_once=True, library=None, bound=plan_bound, ceiling=ceiling_of(150.0 * n_el)),
+        dict(key="K_walk", name="pghi_walk", source=pghi_src, replaces=pghi_tpu, launches=counts["pghi_phases"],
+             run=lambda: pghi_kernel.pghi_walk(k_src, k_off, F),
+             plain=lambda: pghi_kernel.pghi_walk_reference(k_src, k_off, F),
+             plain_once=True, library=None, bound=walk_bound, ceiling=ceiling_of(n_el)),
+        dict(key="K_bidir", name="pghi_phases_bidir", source=pghi_src, replaces=pghi_tpu,
+             launches=counts["pghi_bidir"],
+             run=lambda: pghi_kernel.pghi_phases_bidir(dgt_target, gamma, N_FFT, HOP,
+                                                       tolerance=dgt_f.tolerance, angles=k_angles),
+             plain=lambda: pghi_kernel.pghi_phases_bidir_reference(
                  dgt_target, gamma, N_FFT, HOP, tolerance=dgt_f.tolerance, angles=k_angles),
              plain_once=True, library=None, bound=phases_bound, ceiling=ceiling_of(150.0 * n_el)),
         dict(key="K_synth", name="pghi_synthesize", source=pghi_src + " (+ csrc/fft_smem.cuh)", replaces=pghi_tpu,
@@ -4214,6 +4306,9 @@ def main() -> int:
     for key, n_steps in (("RT", rt_mag.shape[1] + rt_mag.shape[1] // (STREAM_CHUNK // HOP) - 1), ("RTs", s_tt)):
         log(f"  {key} chain floor (model): {n_steps} serial steps x {RT_STEP_CYCLES} cycles at {sm_mhz} MHz = "
             f"{1e3 * n_steps * RT_STEP_CYCLES / (sm_mhz * 1e6):.4f} ms")
+    for key, n_steps in (("K_walk", Tn), ("K_bidir", Tn // 2 + 1)):
+        log(f"  {key} chain floor (model): {n_steps} serial steps x {K_STEP_CYCLES} cycles at {sm_mhz} MHz = "
+            f"{1e3 * n_steps * K_STEP_CYCLES / (sm_mhz * 1e6):.4f} ms")
     kernels = []
     for s in specs:
         # turns: plain, kernel, plain; each time is the card's per call in

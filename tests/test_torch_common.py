@@ -3,12 +3,18 @@ through the JAX package and through its PyTorch port (``device="cpu"``, where
 the port's kernel wrappers run their plain PyTorch versions), and the fitted
 state of a JAX chain is handed to the port as numpy arrays.
 """
+import math
+from typing import List, Tuple
+
 import numpy as np
 import torch
+import torch.nn.functional as F_
 
 import acids_transforms_tpu.transforms as JT
 import acids_transforms_tpu_torch.transforms as PT
 from acids_transforms_tpu_torch.convert import load_jax_state, state_from_leaves
+from acids_transforms_tpu_torch.ops.cuda import pghi_kernel as PK
+from acids_transforms_tpu_torch.ops.pghi import EPS
 
 torch.set_num_threads(1)
 
@@ -147,3 +153,166 @@ def test_state_keys_of_the_dgt_chain():
                        "2.norm.offset", "2.norm.scale", "2.norm.needs_scaling"}
     assert np.array_equal(t2n(pc[1].window), st["1.window"])
     assert pc[1]._window_taps is None and not pc[2].norm.needs_scaling
+
+
+# ------------------------------------------------------------------------
+# K's recurrence on the schedule its kernel had before the plan / walk design
+# (a block a chain: per frame ``phi + ct`` at the anchors, then two segmented
+# scans of affine maps ``x -> a x + b`` with a distance channel, composed in
+# a warp-structured order): the oracle of that order of additions.
+def old_bins_per_thread(n_bins: int):
+    """Adjacent bins a thread of the old kernel owned (a block of at most 32
+    warps), or None above 4096 bins."""
+    for bpt in (1, 2, 4):
+        if n_bins <= 1024 * bpt:
+            return bpt
+    return None
+
+
+def old_chains(T: int, bidir: bool) -> List[Tuple[List[int], List[int], List[int], List[float], List[bool]]]:
+    """Per chain the steps as ``(previous, current, next frame, sign, store)``;
+    frame -1 is the all-zero frame before the clip."""
+    if not bidir:
+        s = range(T)
+        return [([t - 1 for t in s], list(s), [min(t + 1, T - 1) for t in s],
+                 [1.0] * T, [True] * T)]
+    mid = T // 2
+    right = range(mid, T)
+    chain0 = ([t - 1 for t in right], list(right), [min(t + 1, T - 1) for t in right],
+              [1.0] * len(right), [True] * len(right))
+    left = range(mid - 1, -1, -1)
+    # the left chain first repeats the right chain's seed step, unstored
+    chain1 = ([mid - 1] + [t + 1 for t in left], [mid] + list(left),
+              [mid + 1] + [max(t - 1, 0) for t in left],
+              [1.0] + [-1.0] * mid, [False] + [True] * mid)
+    return [chain0, chain1]
+
+
+def old_compose(l, r):
+    """Apply ``l`` (earlier) then ``r``: the maps ``x -> a x + b`` with a
+    distance channel ``d``; ``a`` is 0 or 1, so each channel rounds once."""
+    return (l[0] * r[0], l[1] * r[0] + r[1], l[2] * r[0] + r[2])
+
+
+def old_shift(x, s: int):
+    """Elements moved ``s`` places up the last axis, identity maps shifted in."""
+    fill = (1.0, 0.0, 0.0)
+    return tuple(F_.pad(c[..., :-s], (s, 0), value=v) if s < c.shape[-1]
+                 else torch.full_like(c, v) for c, v in zip(x, fill))
+
+
+def old_kogge_stone(x):
+    n, s = x[0].shape[-1], 1
+    while s < n:
+        x = old_compose(old_shift(x, s), x)
+        s *= 2
+    return x
+
+
+def old_block_scan(e, bpt: int):
+    """Inclusive segmented scan up the last axis (length a multiple of
+    ``32 * bpt``), composing in the kernel's order: inside a thread's ``bpt``
+    bins, over the 32 lanes' totals, over the warps' totals, and then
+    ``compose(compose(warps before, lanes before), own prefix)``."""
+    lead = e[0].shape[:-1]
+    n_pad = e[0].shape[-1]
+    e = tuple(c.reshape(lead + (n_pad // (32 * bpt), 32, bpt)) for c in e)
+    cols = [tuple(c[..., j] for c in e) for j in range(bpt)]
+    for j in range(1, bpt):
+        cols[j] = old_compose(cols[j - 1], cols[j])
+    incl = old_kogge_stone(cols[-1])                        # (..., W, 32)
+    wt = old_kogge_stone(tuple(c[..., -1] for c in incl))   # (..., W)
+    wprev = tuple(c[..., None] for c in old_shift(wt, 1))
+    before = old_compose(wprev, old_shift(incl, 1))
+    out = [old_compose(before, col) for col in cols]
+    return tuple(
+        torch.stack([o[i] for o in out], dim=-1).reshape(lead + (n_pad,)) for i in range(3)
+    )
+
+
+def old_run_chain(m, ang, abstol, steps, fmul, carrier, dtype, out):
+    """One chain of the recurrence on ``m (B, T, F)`` float32; writes the
+    stored steps' phases into ``out (B, T, F)`` of ``dtype``.  The masks come
+    from the float32 magnitudes whatever ``dtype`` is, so a float64 run takes
+    the same discrete decisions and differs by rounding only."""
+    fp, fc, fn, sgn, store = steps
+    B, T, n_bins = m.shape
+    dev = m.device
+    bpt = old_bins_per_thread(n_bins)
+    n_pad = -(-n_bins // (32 * bpt)) * 32 * bpt
+    mz = torch.cat([m, m.new_zeros((B, 1, n_bins))], dim=1)   # index -1: the zero frame
+    ix = lambda f: torch.as_tensor(f, device=dev) % (T + 1)
+    Mp, Mc, Mn = (mz.index_select(1, ix(f)) for f in (fp, fc, fn))
+    sg = torch.as_tensor(sgn, device=dev, dtype=dtype)[None, :, None]
+    Yp, Yc, Yn = (torch.log(torch.clamp_min(x, EPS).to(dtype)) for x in (Mp, Mc, Mn))
+    k = torch.arange(n_bins, device=dev, dtype=dtype)
+    ck = carrier * k
+
+    def tstep(Y):
+        up = torch.cat([Y[..., 1:], Y[..., -1:]], dim=-1)
+        dn = torch.cat([Y[..., :1], Y[..., :-1]], dim=-1)
+        # times 1 / fmul, as the kernel does (a division by a constant rounds
+        # otherwise, by up to an ulp)
+        return ((up - dn) * 0.5) * (1.0 / fmul) + ck
+
+    ct = sg * ((tstep(Yp) + tstep(Yc)) * 0.5)
+    fs = sg * (-fmul * ((Yn - Yp) * 0.5)) + math.pi
+    del Yp, Yc, Yn
+    trap = (fs[..., 1:] + fs[..., :-1]) * 0.5
+    zero = torch.zeros_like(fs[..., :1])
+    sup = torch.cat([zero, trap], dim=-1)
+    sdn = torch.cat([-trap, zero], dim=-1)
+    del fs, trap
+    thr = abstol[:, None, None]
+    sig = Mc > thr
+    mpad = F_.pad(Mc, (1, 1), value=-1.0)
+    anch = sig & (Mp > thr) & (Mc >= mpad[..., :-2]) & (Mc >= mpad[..., 2:])
+    onset = ~anch.any(dim=-1, keepdim=True)
+    anch = anch | (onset & sig & (Mc == Mc.amax(dim=-1, keepdim=True)))
+    any_anchor = anch.any(dim=-1, keepdim=True)
+    del Mp, Mn, mpad
+
+    big = float(10 * n_bins)
+    phi = torch.zeros((B, n_bins), device=dev, dtype=dtype)
+    for s in range(len(fc)):
+        phi = old_fill_frame(phi, ct[:, s], anch[:, s], sup[:, s], sdn[:, s], any_anchor[:, s],
+                          sig[:, s], ang[:, fc[s]], bpt, n_pad, big, dtype)
+        if store[s]:
+            out[:, fc[s]] = phi
+
+
+def old_fill_frame(phi, ct, a_s, sup, sdn, any_anchor, sig, ang, bpt, n_pad, big, dtype):
+    """One frame of the recurrence on ``(B, F)`` rows, in the kernel's order:
+    ``phi + ct`` at the anchors, the two-sided segmented fill from them, the
+    anchored / filled select, the silent bins' angles.  Returns the frame's
+    phases."""
+    n_bins = phi.shape[-1]
+    pad = (0, n_pad - n_bins)
+    phi_t = phi + ct
+    a0 = (~a_s).to(dtype)
+    b_up = torch.where(a_s, phi_t, sup)
+    b_dn = torch.where(a_s, phi_t, sdn)
+    # both directions in one scan: the downward one runs up the flipped
+    # padded row (identity maps first, which change nothing)
+    a2 = torch.stack([F_.pad(a0, pad, value=1.0), F_.pad(a0, pad, value=1.0).flip(-1)])
+    b2 = torch.stack([F_.pad(b_up, pad), F_.pad(b_dn, pad).flip(-1)])
+    d2 = torch.stack([F_.pad(a0, pad), F_.pad(a0, pad).flip(-1)])
+    sa, sb, sd = old_block_scan((a2, b2, d2), bpt)
+    a_u, f_up, d_up = sa[0, :, :n_bins], sb[0, :, :n_bins], sd[0, :, :n_bins]
+    a_d, f_dn, d_dn = (x[1].flip(-1)[:, :n_bins] for x in (sa, sb, sd))
+    du = torch.where(a_u == 0, d_up, big)
+    dd = torch.where(a_d == 0, d_dn, big)
+    filled = torch.where(du <= dd, f_up, f_dn)     # a tie takes the fill from below
+    filled = torch.where(any_anchor, filled, torch.zeros_like(filled))
+    phi = torch.where(a_s, phi_t, filled)
+    return torch.where(sig, phi, ang.to(dtype))
+
+
+def old_k_phases(m, ang, gamma, n_fft, hop, tolerance, bidir, dtype):
+    T = m.shape[1]
+    fmul = float(gamma) / (hop * n_fft)
+    carrier = 2.0 * math.pi * hop / n_fft
+    out = torch.empty(m.shape, device=m.device, dtype=dtype)
+    for steps in old_chains(T, bidir and T >= 4):
+        old_run_chain(m, ang, PK._abstol(m, tolerance), steps, fmul, carrier, dtype, out)
+    return out

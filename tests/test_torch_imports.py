@@ -131,7 +131,7 @@ def test_pghi_entry_points_default_to_the_card():
     mag = torch.rand(1, 6, 257)
     ph = pk.pghi_phases_fused(mag, 1000.0, 512, 128)
     assert ph.shape == mag.shape and ph.device.type == "cpu"
-    assert pk.launches == {"pghi_phases": 0, "pghi_synthesize": 0}
+    assert pk.launches == {"pghi_plan": 0, "pghi_phases": 0, "pghi_synthesize": 0}
 
 
 def test_representation_entry_points_default_to_the_card():

@@ -132,29 +132,31 @@ def test_silent_frames_and_silent_clip():
     assert np.abs(t2n(got) - ref).max() <= 1e-3
 
 
-@pytest.mark.parametrize("bpt", [1, 2, 4])
-def test_block_scan_is_the_segmented_scan(bpt):
-    """The warp-structured composition order against a bin-by-bin loop, on
-    integer-valued steps (sums exact in any order), both directions."""
-    rng = np.random.default_rng(bpt)
-    n = 3 * 32 * bpt
+@pytest.mark.parametrize("tiles", [1, 2, 4])
+def test_block_scan_is_the_segmented_scan(tiles):
+    """The fill's segmented scan, shared by both recurrences
+    (``pghi_kernel._fill_scan``: 4 bins a lane, Kogge-Stone over the lanes,
+    the 128-bin tiles' carry), against a bin-by-bin loop over 128, 256 and
+    512 bins, on integer-valued steps (sums exact in any order), both
+    directions (the downward one runs up the flipped row, as
+    ``fill_sources`` runs it)."""
+    rng = np.random.default_rng(tiles)
+    n = 128 * tiles
     anch = rng.random((2, n)) < 0.05
     val = rng.integers(-50, 50, (2, n)).astype(np.float32)
-    a = torch.as_tensor((~anch).astype(np.float32))
-    b = torch.as_tensor(val)
-    sa, sb, sd = PK._block_scan((a, b, a.clone()), bpt)
-    ea, eb, ed = np.ones((2,), np.float32), np.zeros((2,), np.float32), np.zeros((2,), np.float32)
-    for k in range(n):
-        ak = (~anch[:, k]).astype(np.float32)
-        ea, eb, ed = ea * ak, eb * ak + val[:, k], ed * ak + ak
-        assert np.array_equal(sa[:, k].numpy(), ea) and np.array_equal(sb[:, k].numpy(), eb)
-        assert np.array_equal(sd[:, k].numpy(), ed)
+    for flip in (False, True):
+        f, v = (anch[:, ::-1], val[:, ::-1]) if flip else (anch, val)
+        got = PK._fill_scan(torch.as_tensor(f.copy()), torch.as_tensor(v.copy())).numpy()
+        run = np.zeros((2,), np.float32)
+        for k in range(n):
+            run = np.where(f[:, k], v[:, k], run + v[:, k])
+            assert np.array_equal(got[:, k], run)
 
 
 def test_wide_bins_take_several_bins_per_thread():
-    """n_fft 2048 (1025 bins) runs two bins per thread: same phases as the scan."""
+    """n_fft 2048 (1025 bins, a plan block of 8 frames, a walk block of 5
+    warps): same phases as the scan."""
     dgt, mag, ang, _, g = setup(2048, 512, tones(20000, [(220, 440)]))
-    assert PK._bins_per_thread(1025) == 2 and PK._bins_per_thread(513) == 1
     got = PK.pghi_phases_fused(torch.as_tensor(mag), g, 2048, 512, 1e-2, angles=torch.as_tensor(ang))
     scan = PP.pghi_scan(torch.as_tensor(mag), g, 2048, 512, 1e-2, time_stencil="central",
                         angles=torch.as_tensor(ang))
@@ -168,19 +170,22 @@ def test_gates_chains_and_shared_memory():
     assert not PK.pghi_fused_available(1024, 160)      # hop does not divide n_fft
     assert not PK.pghi_fused_available(512, 512)       # overlap 1
     assert PK.pghi_phases_available(1026, 342) and not PK.pghi_fused_available(1026, 342)  # hop % 4
-    assert not PK.pghi_phases_available(16384, 4096)   # 8193 bins: more than one block holds
+    assert not PK.pghi_phases_available(16384, 4096)   # 8193 bins: more than the recurrence takes
     picks = {(1024, 256): 40, (512, 64): 40, (2048, 512): 16, (4096, 1024): 8, (8192, 2048): None}
     for (n_fft, hop), rows in picks.items():
         assert PK._pick_rows(n_fft, hop) == rows
         if rows is not None:
             assert PK._synth_smem_bytes(rows, n_fft // hop, PK._k_padded(n_fft // 2 + 1)) <= PK.MAX_SMEM
     # causal: frame -1 is the zero frame, the last frame's stencil replicates the edge
-    (fp, fc, fn, sgn, store), = PK._chains(5, False)
-    assert fp == [-1, 0, 1, 2, 3] and fc == [0, 1, 2, 3, 4] and fn == [1, 2, 3, 4, 4] and all(store)
-    right, left = PK._chains(7, True)
-    assert right[1] == [3, 4, 5, 6] and right[0] == [2, 3, 4, 5] and right[2] == [4, 5, 6, 6]
-    assert left[1] == [3, 2, 1, 0] and left[0] == [2, 3, 2, 1] and left[2] == [4, 1, 0, 0]
-    assert left[3] == [1.0, -1.0, -1.0, -1.0] and left[4] == [False, True, True, True]
+    fp, fn, sgn = PK._orientation(5, False)
+    assert fp == [-1, 0, 1, 2, 3] and fn == [1, 2, 3, 4, 4] and sgn == [1.0] * 5
+    assert PK._walk_order(5, False) == [[(t, True) for t in range(5)]]
+    # bidir: frames before T // 2 backward, chain 1 repeats the seed step unstored
+    fp, fn, sgn = PK._orientation(7, True)
+    assert fp == [1, 2, 3, 2, 3, 4, 5] and fn == [0, 0, 1, 4, 5, 6, 6] and sgn == [-1.0] * 3 + [1.0] * 4
+    right, left = PK._walk_order(7, True)
+    assert right == [(3, True), (4, True), (5, True), (6, True)]
+    assert left == [(3, False), (2, True), (1, True), (0, True)]
     with pytest.raises(ValueError, match="expected magnitudes"):
         PK.pghi_phases_fused(torch.zeros(2, 5, 100), 1.0, 512, 128)
-    assert PK.launches == {"pghi_phases": 0, "pghi_synthesize": 0}   # nothing launched on the CPU
+    assert PK.launches == {"pghi_plan": 0, "pghi_phases": 0, "pghi_synthesize": 0}   # nothing launched on the CPU

@@ -17,7 +17,8 @@ Tolerances, and why:
   kernel takes no chunk, the seeded recurrence against the JAX ``pghi_scan``
   with the carry: audible bins within 1e-3 rad on the circle;
 * against the schedule the kernel had before (two segmented scans of affine
-  maps a frame, ``pghi_kernel._fill_frame``, K's) run in float64 on the same
+  maps a frame, ``test_torch_common.old_fill_frame``, the schedule K's
+  kernel had until it took the plan too) run in float64 on the same
   float32 ``ct`` and frequency steps: the anchors and every bin's source are
   identical; the phases differ only by the float32 additions of the fill and
   the re-wrap, so they are held within ``T_c`` x 2 ulp of the largest phase
@@ -29,8 +30,7 @@ Tolerances, and why:
   other audible bin fills from them); an all-silent chunk is its angles,
   bit for bit.
 """
-import hashlib
-import inspect
+import itertools
 import math
 import pathlib
 
@@ -48,7 +48,8 @@ from acids_transforms_tpu_torch.ops.cuda import pghi_kernel as KK
 from acids_transforms_tpu_torch.ops.cuda import stream_step as PK
 from acids_transforms_tpu_torch.ops.cuda.frames_fft import MAX_SMEM
 from acids_transforms_tpu_torch.ops.pghi import EPS
-from test_torch_common import make_audio, rel, t2n, tones
+from test_torch_common import (make_audio, old_bins_per_thread, old_block_scan, old_fill_frame, old_k_phases, rel,
+                               t2n, tones)
 
 torch.set_num_threads(1)
 SHAPES = [(1024, 256), (768, 192)]        # 513 bins, and 385 (no power of two plus one)
@@ -137,13 +138,13 @@ def old_schedule(mag, angles, gamma, n_fft, hop, tolerance, T_c, prev_mag=None, 
                  dtype=torch.float64):
     """The recurrence on the schedule the kernel had before: per frame ``phi
     + ct`` at the anchors, then K's two-sided segmented fill of affine maps
-    (``pghi_kernel._fill_frame``), in ``dtype`` on the float32 ``ct`` and
+    (``test_torch_common.old_fill_frame``), in ``dtype`` on the float32 ``ct`` and
     frequency steps (so that only the fill's additions differ).  Returns the
     phases and, per bin, the anchor it fills from (by the scans' distance
     channels; -1 where the bin is silent or its frame has no anchor)."""
     B, T, n_bins = mag.shape
     src_new, ct, _ = PK.rt_fill_plan(mag, angles, gamma, n_fft, hop, tolerance, T_c, prev_mag)
-    fmul, _, _ = PK._rt_constants(gamma, n_fft, hop)
+    fmul, _, _ = KK._constants(gamma, n_fft, hop)
     prev = mag.new_zeros((B, 2, n_bins)) if prev_mag is None else prev_mag
     mz = torch.cat([prev, mag], dim=1)
     Yz = torch.log(torch.clamp_min(mz, EPS))
@@ -159,7 +160,7 @@ def old_schedule(mag, angles, gamma, n_fft, hop, tolerance, T_c, prev_mag=None, 
     anch = sig & (mz[:, 1:-1] > thr) & (mag >= mpad[..., :-2]) & (mag >= mpad[..., 2:])
     anch = anch | (~anch.any(dim=-1, keepdim=True) & sig & (mag == mag.amax(dim=-1, keepdim=True)))
     any_anchor = anch.any(dim=-1, keepdim=True)
-    bpt = KK._bins_per_thread(n_bins)
+    bpt = old_bins_per_thread(n_bins)
     n_pad = -(-n_bins // (32 * bpt)) * 32 * bpt
     big = float(10 * n_bins)
     ct, sup, sdn = (v.to(dtype) for v in (ct, sup, sdn))
@@ -172,7 +173,7 @@ def old_schedule(mag, angles, gamma, n_fft, hop, tolerance, T_c, prev_mag=None, 
             m = mag[:, t - 1].to(dtype)
             phi = torch.atan2(m * torch.sin(phi), m * torch.cos(phi))
         a_s = anch[:, t]
-        phi = KK._fill_frame(phi, ct[:, t], a_s, sup[:, t], sdn[:, t], any_anchor[:, t], sig[:, t],
+        phi = old_fill_frame(phi, ct[:, t], a_s, sup[:, t], sdn[:, t], any_anchor[:, t], sig[:, t],
                              angles[:, t], bpt, n_pad, big, dtype)
         out[:, t] = phi
         # the anchor each bin fills from, by the scans' distance channels
@@ -181,7 +182,7 @@ def old_schedule(mag, angles, gamma, n_fft, hop, tolerance, T_c, prev_mag=None, 
         a2 = torch.stack([torch.nn.functional.pad(a0, pad, value=1.0),
                           torch.nn.functional.pad(a0, pad, value=1.0).flip(-1)])
         d2 = torch.stack([torch.nn.functional.pad(a0, pad), torch.nn.functional.pad(a0, pad).flip(-1)])
-        sa, _, sd = KK._block_scan((a2, torch.zeros_like(a2), d2), bpt)
+        sa, _, sd = old_block_scan((a2, torch.zeros_like(a2), d2), bpt)
         du = torch.where(sa[0, :, :n_bins] == 0, sd[0, :, :n_bins], big)
         dd = torch.where(sa[1].flip(-1)[:, :n_bins] == 0, sd[1].flip(-1)[:, :n_bins], big)
         s = torch.where(du <= dd, k - du.long(), k + dd.long())
@@ -298,43 +299,24 @@ def test_the_plan_is_a_pure_function_of_the_bins_and_the_chunk():
     assert PK.kernel_covers("recurrence", 8190, 4095) and not PK.kernel_covers("recurrence", 8192, 2048)
 
 
-def k_sources():
-    """The text of K's plain version (``pghi_kernel.py``: the functions
-    ``pghi_phases_fused_reference`` reaches) and of K's kernel
-    (``csrc/pghi.cu`` from the start of ``namespace att`` to the
-    recurrence's arguments: the scan helpers, ``pghi_phases_kernel``; and
-    its entry ``att_pghi_phases``)."""
-    py = "".join(inspect.getsource(getattr(KK, n)) for n in K_PLAIN_FUNCTIONS)
-    cu = (pathlib.Path(KK.__file__).parents[2] / "csrc" / "pghi.cu").read_text()
-    head = cu[cu.index("namespace att {"):cu.index("struct RtPghiArgs {")]
-    start = cu.index("int att_pghi_phases(")
-    depth, end = 0, cu.index("{", start)
-    for end in range(end, len(cu)):
-        depth += {"{": 1, "}": -1}.get(cu[end], 0)
-        if depth == 0:
-            break
-    return py, head + cu[start:end + 1]
-
-
 def test_k_recurrence_plain_version_is_unchanged():
-    """K's plain version (``pghi_kernel.py``: ``_run_chain``, ``_fill_frame``,
-    ``_block_scan`` and the functions around them) and K's kernel are the
-    text they were before the streaming recurrence left that schedule, so
-    they give the phases they gave, on any host; the streaming module no
-    longer uses K's fill."""
-    py, cu = k_sources()
-    assert hashlib.sha256(py.encode()).hexdigest() == K_PLAIN_SHA256, "K's plain version changed"
-    assert hashlib.sha256(cu.encode()).hexdigest() == K_KERNEL_SHA256, "K's kernel changed"
-    assert not hasattr(PK, "_fill_frame") and not hasattr(PK, "_block_scan")
-    mag = drifting_mags(2, 24, 257, 5)
-    ang = torch.as_tensor(np.random.default_rng(6).uniform(0, 2 * np.pi, (2, 24, 257)).astype(np.float32))
-    ph = KK.pghi_phases_fused_reference(mag, 0.25645 * 512 * 512, 512, 128, angles=ang)
-    assert ph.shape == mag.shape and torch.isfinite(ph).all()
-
-
-K_PLAIN_FUNCTIONS = ("pghi_phases_fused_reference", "_as_btf", "_angles_for", "_phases_reference", "_abstol",
-                     "_chains", "_run_chain", "_fill_frame", "_block_scan", "_kogge_stone", "_shift", "_compose",
-                     "_bins_per_thread")
-#: SHA-256 of ``k_sources()`` at the parent of this schedule change
-K_PLAIN_SHA256 = "30ee8c5268ebfb8b5c091ac2f3083f8e693a4f8eb6ea32f9e307639b189548e3"
-K_KERNEL_SHA256 = "ed13778e581b576a6b53c83a6c8684a8f4fa652bc4251dc36e3d1c83a3a76073"
+    """K's plain version on its new schedule (``pghi_kernel``: the plan over
+    every frame at once, ``fill_sources`` shared with the streaming
+    recurrence, then the walk, ``phi[src] + (ct[src] + seg)``) is the
+    recurrence its old schedule computed (``test_torch_common.old_k_phases``:
+    ``phi + ct`` at the anchors, two segmented scans of affine maps a frame):
+    run both in float64 on the same inputs, they agree within 1e-9 of the
+    largest phase (the same anchors and sources, sums in another order).
+    Frames near silence take the onset rule; a clip is silent; the streaming
+    module keeps no fill of its own."""
+    assert not hasattr(PK, "_fill_scan") and not hasattr(PK, "_fill_frame") and not hasattr(KK, "_fill_frame")
+    assert not hasattr(KK, "_block_scan") and not hasattr(KK, "_bins_per_thread")
+    for (n_bins, T), bidir in itertools.product(((257, 24), (385, 13)), (False, True)):
+        n_fft = 2 * (n_bins - 1)
+        mag = drifting_mags(3, T, n_bins, 5 + n_bins)
+        mag[2] = 0.0
+        ang = torch.as_tensor(np.random.default_rng(6).uniform(0, 2 * np.pi, (3, T, n_bins)).astype(np.float32))
+        args = (mag, ang, 0.25645 * n_fft * n_fft, n_fft, n_fft // 4, 1e-2, bidir, torch.float64)
+        new, old = KK._phases_reference(*args), old_k_phases(*args)
+        assert new.dtype == old.dtype == torch.float64 and torch.equal(new[2], ang[2].double())
+        assert (new - old).abs().max() <= 1e-9 * old.abs().max()
