@@ -19,6 +19,13 @@ leaves only); ``offset``, ``scale`` (Normalize); the pairs ``Polar``,
 ``"<i>.norm.needs_scaling"`` (``"<i>.phase.norm.needs_scaling"`` in a pair),
 0 or 1.  An unnormalized half (``Dummy``) has no leaves.  Streaming chains
 (``OverlapAdd``, ``RealtimeSTFT``, ``RealtimeDGT``) have window leaves only.
+``MFCC`` has ``window``, ``mel_bank``, ``dct_mat`` (with ``n_mfcc`` set),
+and with a norm ``norm.offset``, ``norm.scale`` and ``norm.needs_scaling``.
+``OneHot``'s fitted class count is the scalar ``"<i>.n_classes"`` (the JAX
+transform keeps it as static config, not a leaf: hand it over as
+``{"n_classes": t.n_classes}``).  The raw and layout transforms (``Mono``,
+``Stereo``, ``MidSide``, ``Window``, ``MuLaw``, ``Unsqueeze``, ``Squeeze``,
+``Transpose``) have no state.
 
 :func:`load_jax_stream_state` carries a streaming session across: the state
 that the JAX package's ``chain.init_state`` / ``scan_forward`` return (one
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from .transforms.base import AudioTransform, ComposeAudioTransform
+from .transforms.misc import OneHot
 from .transforms.norm import Normalize
 from .transforms.stft import STFT, RealtimeSTFT
 
@@ -98,6 +106,9 @@ def load_jax_state(port_chain: AudioTransform, state: Mapping[str, np.ndarray]) 
                 mod.needs_scaling = bool(np.asarray(value))
             elif bool(np.asarray(value)) != bool(mod.needs_scaling):
                 raise ValueError("%s: needs_scaling differs from the port's" % key)
+            continue
+        if leaf == "n_classes" and isinstance(mod, OneHot):
+            mod.n_classes = int(np.asarray(value))
             continue
         if leaf not in mod._buffers:
             raise KeyError("%s names no buffer of %s" % (key, type(mod).__name__))

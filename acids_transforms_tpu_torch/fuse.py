@@ -6,9 +6,14 @@ structure matches one of the patterns
 
     [Mono?] + (STFT | DGT) + Magnitude                      (melspec)
     [Mono?] + (STFT | DGT) + (Polar | PolarIF | Cartesian)  (representation)
+    [Mono?] + MFCC                                          (mfcc)
 
 returns a callable that computes the whole pipeline without materializing the
-complex spectrogram.  The representation pattern computes both channels from
+complex spectrogram.  The MFCC pattern is a power (or magnitude) mel
+spectrogram with no contrast and no affine, transposed to MFCC's bin-major
+layout, its norm applied after in float32; it declines ``n_mfcc`` (the DCT
+runs eagerly only), a power other than 1 or 2, an impl other than the GEMM
+DFT and ``hop`` not dividing ``n_fft``.  The representation pattern computes both channels from
 one DFT; it declines ``Phase(unwrap=True)`` and an IF stencil other than
 ``forward`` (both need the whole clip's unwrapped phase) and a front-counted
 ``stack``.  Any chain that does not match falls back to ``chain.forward``.
@@ -32,7 +37,7 @@ Backends:
 epilogue reduces the normalization statistics (of both channels, for the
 representation pattern) without writing the spectrogram.
 
-Not ported yet (ROADMAP Queue 1 items 7, 12): the MFCC pattern and ``mesh=``.
+Not ported yet (ROADMAP Queue 1 item 12): ``mesh=``.
 """
 from __future__ import annotations
 
@@ -47,9 +52,11 @@ from .ops.cuda.spectral import (
     fused_repr_stats,
     fused_spectral_repr,
 )
-from .ops.fft import _resolve_impl, stft_real
+from .ops.fft import _resolve_impl, stft_real, taps_for_window
+from .ops.windows import hann_window
 from .transforms.base import AudioTransform, ComposeAudioTransform
 from .transforms.dgt import DGT
+from .transforms.mel import MFCC
 from .transforms.norm import Normalize
 from .transforms.raw import Mono
 from .transforms.spectral_repr import Cartesian, Magnitude, Polar, PolarIF
@@ -143,7 +150,7 @@ def _match_repr(chain: AudioTransform, backend: str = "eager"):
 
 def fusable(chain: AudioTransform, backend: str = "auto") -> bool:
     be = "eager" if backend == "auto" else backend
-    return _match_melspec(chain, be) is not None or _match_repr(chain, be) is not None
+    return any(m(chain, be) is not None for m in (_match_mfcc, _match_melspec, _match_repr))
 
 
 def _from_pcm_for_mono(mono: Mono, x: torch.Tensor) -> torch.Tensor:
@@ -208,30 +215,110 @@ def _kernel_fused(mono: Optional[Mono], stft_t: STFT, mag_t: Magnitude, out_dtyp
         )
         return mag_t._drop_nyquist(y.reshape(batch_shape + y.shape[1:]))
 
-    class _Fused(torch.autograd.Function):
-        """The kernel has no backward kernel: its value is paired with the
-        gradient of the mathematically identical eager formulation."""
+    return _with_eager_gradient(kernel_forward, eager_forward)
 
+
+def _with_eager_gradient(kernel_forward, eager_forward):
+    """The kernels have no backward kernel: a fused forward's value (a tensor
+    or a tuple of them) is paired with the gradient of the mathematically
+    identical eager formulation."""
+
+    class _Fused(torch.autograd.Function):
         @staticmethod
         def forward(ctx, x):
             ctx.save_for_backward(x)
             return kernel_forward(x)
 
         @staticmethod
-        def backward(ctx, g):
+        def backward(ctx, *grads):
             (x,) = ctx.saved_tensors
             with torch.enable_grad():
                 xin = x.detach().requires_grad_(True)
                 y = eager_forward(xin)
-            (gx,) = torch.autograd.grad(y, xin, g)
+            (gx,) = torch.autograd.grad(y, xin, grads if isinstance(y, tuple) else grads[0])
             return gx
 
-    def forward(x: torch.Tensor) -> torch.Tensor:
+    def forward(x: torch.Tensor):
         if x.requires_grad:
             return _Fused.apply(x)
         return kernel_forward(x)
 
     return forward
+
+
+def _match_mfcc(chain: AudioTransform, backend: str = "eager"):
+    """``(mono, mfcc)`` of a ``[Mono?] + MFCC`` chain (or a bare MFCC) whose
+    forward is a power or magnitude mel spectrogram, else None.  With
+    ``backend="kernel"`` also the shapes kernel A takes."""
+    mono = None
+    if isinstance(chain, ComposeAudioTransform):
+        ts = list(chain.transforms)
+        if ts and type(ts[0]) is Mono:
+            mono = ts[0]
+            ts = ts[1:]
+        if len(ts) != 1:
+            return None
+        chain = ts[0]
+    if type(chain) is not MFCC:
+        return None
+    if chain.n_mfcc or chain.power not in (1.0, 2.0):
+        return None
+    if _resolve_impl(chain.impl, chain.n_fft) != "matmul" or chain.n_fft % chain.hop_length != 0:
+        return None
+    if backend == "kernel" and not fused_melspec_available(chain.n_fft, chain.hop_length, _mfcc_taps(chain)):
+        return None
+    return mono, chain
+
+
+def _mfcc_taps(mfcc: MFCC):
+    """The taps of MFCC's hann window, read off a float64 hann rather than
+    off the float32 buffer, so that they are exact."""
+    return taps_for_window(hann_window(mfcc.n_fft, dtype=torch.float64))
+
+
+def _mfcc_epilogue(mfcc: MFCC, mel: torch.Tensor, out_dtype) -> torch.Tensor:
+    """Bin-major layout, the norm in float32, the cast last."""
+    mel = mel.transpose(-2, -1)
+    if mfcc.norm is not None:
+        mel = mfcc.norm.forward(mel)
+    return mel.to(out_dtype)
+
+
+def _eager_fused_mfcc(mono: Optional[Mono], mfcc: MFCC, out_dtype):
+    taps = _mfcc_taps(mfcc)
+
+    def forward(x: torch.Tensor) -> torch.Tensor:
+        mfcc._check(x)
+        if mono is not None:
+            x = mono.forward(_from_pcm_for_mono(mono, x))
+        re, im = stft_real(_from_pcm(x), mfcc.n_fft, mfcc.hop_length, mfcc.window, impl=mfcc.impl, taps=taps)
+        p = re * re + im * im
+        if mfcc.power != 2.0:
+            # the tiny floor keeps the gradient finite at silent bins
+            p = torch.sqrt(torch.clamp_min(p, torch.finfo(torch.float32).tiny))
+        return _mfcc_epilogue(mfcc, torch.matmul(p, mfcc.mel_bank), out_dtype)
+
+    return forward
+
+
+def _kernel_fused_mfcc(mono: Optional[Mono], mfcc: MFCC, out_dtype):
+    """Kernel A with MFCC's taps, its rectangular bank, offset 0, scale 1, no
+    contrast and ``power``; float32 out, then the epilogue."""
+    taps = _mfcc_taps(mfcc)
+    eager_forward = _eager_fused_mfcc(mono, mfcc, out_dtype)
+
+    def kernel_forward(x: torch.Tensor) -> torch.Tensor:
+        mfcc._check(x)
+        if mono is not None:
+            x = mono.forward(_from_pcm_for_mono(mono, x))
+        batch_shape = x.shape[:-1]
+        mel = fused_melspec(
+            x.reshape((-1, x.shape[-1])), mfcc.n_fft, mfcc.hop_length, mfcc.mel_bank, 0.0, 1.0,
+            "none", taps=taps, power=mfcc.power, window=mfcc.window,
+        )
+        return _mfcc_epilogue(mfcc, mel.reshape(batch_shape + mel.shape[1:]), out_dtype)
+
+    return _with_eager_gradient(kernel_forward, eager_forward)
 
 
 def _stack_repr(rep, y1, y2):
@@ -296,29 +383,7 @@ def _kernel_fused_repr(mono, stft_t: STFT, rep, second: str, out_dtype):
         y2 = rep.phase._drop_nyquist(y2.reshape(batch_shape + y2.shape[1:]))
         return _stack_repr(rep, y1.to(out_dtype), y2.to(out_dtype))
 
-    class _FusedRepr(torch.autograd.Function):
-        """The kernel's value with the gradient of the eager formulation."""
-
-        @staticmethod
-        def forward(ctx, x):
-            ctx.save_for_backward(x)
-            return kernel_forward(x)
-
-        @staticmethod
-        def backward(ctx, *grads):
-            (x,) = ctx.saved_tensors
-            with torch.enable_grad():
-                xin = x.detach().requires_grad_(True)
-                y = eager_forward(xin)
-            (gx,) = torch.autograd.grad(y, xin, grads if isinstance(y, tuple) else grads[0])
-            return gx
-
-    def forward(x: torch.Tensor):
-        if x.requires_grad:
-            return _FusedRepr.apply(x)
-        return kernel_forward(x)
-
-    return forward
+    return _with_eager_gradient(kernel_forward, eager_forward)
 
 
 def fuse_forward(
@@ -331,7 +396,8 @@ def fuse_forward(
 
     ``out_dtype`` (float32 or bfloat16) is the dtype of the returned
     features: all arithmetic stays float32 and only the final store rounds,
-    exactly ``forward(x).to(torch.bfloat16)``.  Matched chains also accept
+    exactly ``forward(x).to(torch.bfloat16)`` (the MFCC pattern stores
+    float32 from the kernel and casts after its transpose and norm).  Matched chains also accept
     **int16 PCM** input, read as ``x / 32768``: bit-identical to
     pre-converting.  An explicit ``backend="kernel"`` on a chain the kernel
     does not cover raises.
@@ -342,6 +408,26 @@ def fuse_forward(
         raise NotImplementedError("fuse_forward(mesh=) is not ported yet (ROADMAP Queue 1 item 12)")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("fuse_forward: out_dtype must be float32 or bfloat16, got %s" % out_dtype)
+    mmatch = _match_mfcc(chain, "eager")
+    if mmatch is not None:
+        kmatch = _match_mfcc(chain, "kernel")
+        if backend == "kernel":
+            if kmatch is None:
+                raise ValueError(
+                    "backend='kernel' requested but kernel A does not cover this MFCC "
+                    "(needs hop | n_fft with 2 <= n_fft / hop <= 8 and hop a multiple of 32); "
+                    "use backend='auto' to fall back"
+                )
+            return _kernel_fused_mfcc(*kmatch, out_dtype)
+        eager_m = _eager_fused_mfcc(*mmatch, out_dtype)
+        if backend == "eager" or kmatch is None:
+            return eager_m
+        kernel_m = _kernel_fused_mfcc(*kmatch, out_dtype)
+
+        def auto_mfcc(x: torch.Tensor) -> torch.Tensor:
+            return kernel_m(x) if x.is_cuda else eager_m(x)
+
+        return auto_mfcc
     if backend == "kernel":
         match = _match_melspec(chain, "kernel")
         if match is not None:

@@ -480,7 +480,8 @@ def _fft_plan_or_raise(n_fft: int, hop: int) -> Tuple[int, int]:
     if plan is None:
         raise NotImplementedError(
             "the CUDA Griffin-Lim kernel's FFT route holds a block's samples in shared "
-            "memory, which n_fft=%d hop=%d exceeds; use fused=False" % (n_fft, hop))
+            "memory, which n_fft=%d hop=%d exceeds (ROADMAP Queue 2, K3); use fused=False"
+            % (n_fft, hop))
     return plan
 
 

@@ -485,7 +485,8 @@ def _kernel_plan(n_fft, hop, taps) -> Tuple[int, int]:
         if plan is None:
             raise NotImplementedError(
                 "the CUDA melspec kernels' FFT route holds one block's tile in shared "
-                "memory, which n_fft=%d hop=%d exceeds; use backend='eager'" % (n_fft, hop)
+                "memory, which n_fft=%d hop=%d exceeds (ROADMAP Queue 2, K1); use "
+                "backend='eager'" % (n_fft, hop)
             )
         return plan
     return _kernel_tile(n_fft, hop, taps), 0

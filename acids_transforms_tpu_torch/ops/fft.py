@@ -11,13 +11,17 @@ Spectral backends (``impl``):
 
 * ``"matmul"`` (``"auto"`` up to ``MATMUL_MAX_NFFT``): windowed frames against
   the cos/sin DFT matrices, two ``torch.matmul`` calls;
+* ``"matmul2"``: the radix-2 split, two half-size real DFTs of the even and
+  odd samples (one product batch) combined by a gather and the twiddles;
+  the inverse takes the direct product, as in the JAX package;
 * ``"fft"``: ``torch.fft``;
 * ``"factored"``: the chunk-DFT factorization for cosine-sum windows.  It is
   the plain formulation the CUDA kernels (``ops/cuda``) are written from.
 
 The matrix products here lie outside any hand-written kernel (as they lay
-outside the Pallas kernels in the JAX package), so they stay ``torch.matmul``
-in full float32: this module switches TF32 off for matmul.
+outside the Pallas kernels in the JAX package), so they stay ``torch.matmul``;
+:func:`set_matmul_precision` picks their float32 precision, full float32 with
+TF32 off unless the caller asks for less.
 """
 from __future__ import annotations
 
@@ -39,15 +43,41 @@ __all__ = [
     "spectral_frames",
     "window_taps",
     "taps_for_window",
+    "set_matmul_precision",
+    "matmul_precision",
     "MATMUL_MAX_NFFT",
 ]
 
 MATMUL_MAX_NFFT = 4096
 
-# TF32 keeps about three decimal digits, far outside the 1e-4 budget of the
-# STFT roundtrip.  False is PyTorch's default; it is set here so that the
-# port's numerics do not depend on what the caller's process set before.
-torch.backends.cuda.matmul.allow_tf32 = False
+#: the JAX package's precision names -> torch's float32 matmul precision:
+#: "highest" is full float32 (TF32 off), "high" lets the card use TF32 (about
+#: three decimal digits, outside the 1e-4 budget of the STFT roundtrip),
+#: "default" bfloat16 products where the backend has them
+_PRECISIONS = {"default": "medium", "high": "high", "highest": "highest"}
+_PRECISION = "highest"
+
+
+def set_matmul_precision(precision: str) -> None:
+    """Set the float32 precision of the products of the eager formulation
+    ("default", "high" or "highest"; the port's default is "highest").  It is
+    torch's process-wide ``torch.set_float32_matmul_precision``: the
+    hand-written kernels compute in float32 whatever it says."""
+    global _PRECISION
+    if precision not in _PRECISIONS:
+        raise ValueError("matmul precision must be one of %s, got %r" % (sorted(_PRECISIONS), precision))
+    _PRECISION = precision
+    torch.set_float32_matmul_precision(_PRECISIONS[precision])
+
+
+def matmul_precision() -> str:
+    """The name :func:`set_matmul_precision` last set."""
+    return _PRECISION
+
+
+# set here so that the port's numerics do not depend on what the caller's
+# process set before
+set_matmul_precision("highest")
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,20 +155,50 @@ def _resolve_impl(impl: str, n_fft: int) -> str:
     if impl == "factored":
         # already-framed entry points have no chunk structure to exploit
         return "matmul"
-    if impl == "matmul2":
-        raise NotImplementedError(
-            "impl='matmul2' (radix-2 split) is not ported (ROADMAP Queue 1)"
-        )
-    if impl not in ("fft", "matmul"):
+    if impl not in ("fft", "matmul", "matmul2"):
         raise ValueError("unknown fft impl %r" % impl)
     return impl
 
 
+@functools.lru_cache(maxsize=None)
+def _radix2_tables(n_fft: int):
+    """Tables of the radix-2 decimation-in-time rDFT ``X[k] = E[k] + W^k O[k]``
+    (E, O the half-size DFTs of the even and odd samples): per bin k the index
+    of ``k mod M`` (M = n_fft / 2) into the half-size rDFT, the sign of its
+    imaginary part (conjugated where reflected), and the twiddle ``W^k``."""
+    M = n_fft // 2
+    k = np.arange(n_fft // 2 + 1)
+    km = k % M
+    idx = np.minimum(km, M - km)
+    sign_im = (1.0 - 2.0 * (km > M // 2)).astype(np.float32)
+    tw_re = np.cos(2.0 * np.pi * k / n_fft).astype(np.float32)
+    tw_im = (-np.sin(2.0 * np.pi * k / n_fft)).astype(np.float32)
+    return idx.astype(np.int64), sign_im, tw_re, tw_im
+
+
+def _rfft_radix2(frames_w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(re, im) of the rDFT by the radix-2 split: both half-size rDFTs in one
+    pair of products, then the gather and the twiddle combine."""
+    n_fft, T = frames_w.shape[-1], frames_w.shape[-2]
+    if n_fft % 2:
+        raise ValueError("impl='matmul2' needs an even n_fft, got %d" % n_fft)
+    Ch, Sh = _tables(_dft_matrices, frames_w.device, n_fft // 2)
+    eo = torch.cat([frames_w[..., 0::2], frames_w[..., 1::2]], dim=-2)
+    re_h, im_h = torch.matmul(eo, Ch), torch.matmul(eo, Sh)
+    idx, sign_im, tw_re, tw_im = _tables(_radix2_tables, frames_w.device, n_fft)
+    er, orr = re_h[..., :T, :].index_select(-1, idx), re_h[..., T:, :].index_select(-1, idx)
+    ei, oi = im_h[..., :T, :].index_select(-1, idx) * sign_im, im_h[..., T:, :].index_select(-1, idx) * sign_im
+    return er + tw_re * orr - tw_im * oi, ei + tw_re * oi + tw_im * orr
+
+
 def rfft_frames(frames_w: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """rFFT of windowed frames ``(..., T, n_fft) -> (..., T, n_fft//2+1)`` complex."""
-    n_fft = frames_w.shape[-1]
-    if _resolve_impl(impl, n_fft) == "fft":
+    n_fft = int(frames_w.shape[-1])
+    impl = _resolve_impl(impl, n_fft)
+    if impl == "fft":
         return torch.fft.rfft(frames_w, dim=-1)
+    if impl == "matmul2":
+        return torch.complex(*_rfft_radix2(frames_w))
     C, S = _tables(_dft_matrices, frames_w.device, n_fft)
     return torch.complex(torch.matmul(frames_w, C), torch.matmul(frames_w, S))
 
@@ -346,9 +406,12 @@ def stft_real(
             raise ValueError("impl='factored' requires hop | n_fft")
         return _stft_factored(x, n_fft, hop_length, taps, center, pad_mode)
     frames_w = spectral_frames(x, n_fft, hop_length, window, center, pad_mode)
-    if _resolve_impl(impl, n_fft) == "matmul":
+    impl = _resolve_impl(impl, n_fft)
+    if impl == "matmul":
         C, S = _tables(_dft_matrices, x.device, n_fft)
         return torch.matmul(frames_w, C), torch.matmul(frames_w, S)
+    if impl == "matmul2":
+        return _rfft_radix2(frames_w)
     spec = torch.fft.rfft(frames_w, dim=-1)
     return spec.real, spec.imag
 

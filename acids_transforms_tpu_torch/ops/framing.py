@@ -6,10 +6,12 @@ scatter, so the result does not depend on an atomics order.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
 
-__all__ = ["frame", "overlap_add", "pad_axis", "num_frames"]
+__all__ = ["frame", "overlap_add", "pad_axis", "num_frames", "reshape_batches"]
 
 
 def num_frames(length: int, wsize: int, hsize: int) -> int:
@@ -67,3 +69,14 @@ def overlap_add(frames: torch.Tensor, hsize: int) -> torch.Tensor:
     for j in range(overlap):
         out[..., j: j + T, :] += chunks[..., :, j, :]
     return out.reshape(frames.shape[:-2] + (total_chunks * hsize,))[..., :out_len]
+
+
+def reshape_batches(x: torch.Tensor, event_ndim: int) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """Flatten all leading batch dims before the last ``event_ndim`` dims.
+
+    Returns ``(flat, batch_shape)``."""
+    event_ndim = int(event_ndim)
+    if event_ndim == 0:
+        return x.reshape(-1), tuple(x.shape)
+    batch_shape = tuple(x.shape[:-event_ndim])
+    return x.reshape((-1,) + tuple(x.shape[-event_ndim:])), batch_shape

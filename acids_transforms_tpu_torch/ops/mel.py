@@ -8,11 +8,11 @@ transforms, which keep them as float32 buffers on their device.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["melscale_fbanks", "square_mel_banks"]
+__all__ = ["melscale_fbanks", "square_mel_banks", "mel_banks"]
 
 
 def _hz_to_mel(f):
@@ -85,3 +85,18 @@ def square_mel_banks(
     else:
         raise ValueError("unknown mel inverse %r" % inverse)
     return fwd.astype(np.float32), inv.astype(np.float32)
+
+
+def mel_banks(
+    n_fft: int,
+    sr: int,
+    n_mels: int,
+    f_min: float = 0.0,
+    f_max: Optional[float] = None,
+) -> np.ndarray:
+    """Rectangular mel bank ``(n_bins, n_mels)`` float32 of ``MFCC`` (the
+    torchaudio ``MelSpectrogram`` defaults).  A filter narrower than the bin
+    spacing can be all zeros (mel 0 of ``mel_banks(1024, 44100, 128)``)."""
+    if f_max is None:
+        f_max = sr / 2.0
+    return melscale_fbanks(n_fft // 2 + 1, f_min, f_max, n_mels, sr).astype(np.float32)

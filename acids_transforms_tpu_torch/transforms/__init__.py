@@ -1,14 +1,19 @@
-"""Flat transform namespace of the port (the classes ported so far)."""
+"""Flat transform namespace of the port: every transform class of the JAX
+package."""
 from .base import (
     AudioTransform,
     ComposeAudioTransform,
     InversionEnumType,
     NotInvertibleError,
+    apply_invert_transform_to_list,
+    apply_transform_to_list,
 )
 from .dgt import DGT, RealtimeDGT
+from .mel import MFCC
+from .misc import OneHot, Squeeze, Transpose, Unsqueeze
 from .norm import Normalize
 from .oadd import OverlapAdd
-from .raw import Mono
+from .raw import MidSide, Mono, MuLaw, Stereo, Window
 from .spectral_repr import (
     IF,
     Cartesian,
@@ -28,7 +33,18 @@ __all__ = [
     "ComposeAudioTransform",
     "NotInvertibleError",
     "InversionEnumType",
+    "apply_transform_to_list",
+    "apply_invert_transform_to_list",
     "Mono",
+    "Stereo",
+    "MidSide",
+    "Window",
+    "MuLaw",
+    "Unsqueeze",
+    "Squeeze",
+    "Transpose",
+    "OneHot",
+    "MFCC",
     "STFT",
     "RealtimeSTFT",
     "DGT",
@@ -48,12 +64,8 @@ __all__ = [
 ]
 
 #: classes of the JAX package that the port does not have yet, with the
-#: ROADMAP item that brings them
-_UNPORTED = {
-    "Stereo": "Queue 1 item 6", "MidSide": "Queue 1 item 6", "Window": "Queue 1 item 6",
-    "MuLaw": "Queue 1 item 6", "Unsqueeze": "Queue 1 item 6", "Squeeze": "Queue 1 item 6",
-    "Transpose": "Queue 1 item 6", "OneHot": "Queue 1 item 6", "MFCC": "Queue 1 item 7",
-}
+#: ROADMAP item that brings them (none since the transform classes are all in)
+_UNPORTED: dict = {}
 
 
 def __getattr__(name):

@@ -10,6 +10,9 @@
   package takes a PRNG key.
 * Every transform is built for one device (``device=None`` means ``"cuda"``
   and raises without a card); an input on another device raises.
+* ``test_forward`` / ``test_inversion`` / ``test_jit_transform`` are the
+  reference's self-describing smoke hooks; the twin of the JAX package's
+  ``jforward`` in ``test_jit_transform`` is ``torch.jit.trace``.
 * The streaming protocol: ``init_state`` / ``step`` / ``step_invert`` thread
   an explicit state through a chunked loop (``streaming.py``).  A chain's
   state is a list with one entry per child: a dict of tensors for a stateful
@@ -21,7 +24,8 @@
 from __future__ import annotations
 
 import copy
-from typing import List, Optional, Sequence, Tuple
+import warnings
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -33,6 +37,8 @@ __all__ = [
     "ComposeAudioTransform",
     "NotInvertibleError",
     "InversionEnumType",
+    "apply_transform_to_list",
+    "apply_invert_transform_to_list",
 ]
 
 
@@ -119,6 +125,15 @@ class AudioTransform(nn.Module):
         """Per-sample -> per-frame decimation factor."""
         return 1
 
+    def output_frame_axis(self, axis_in: Optional[int] = None) -> Optional[int]:
+        """Negative axis index of the frame dimension in this transform's
+        output, given the frame axis of its input (``None``: no frame axis
+        yet, or not representable).  Framing transforms (STFT, DGT, Window,
+        OverlapAdd, MFCC) introduce it, layout transforms (Transpose,
+        Squeeze, Unsqueeze, stacked representations) move it, everything
+        else keeps it."""
+        return axis_in
+
     def get_inversion_modes(self) -> Optional[List[str]]:
         return None
 
@@ -179,6 +194,36 @@ class AudioTransform(nn.Module):
                     % (inversion_mode, sorted(self._KNOWN_INVERSION_MODES))
                 )
         return getattr(self, "inversion_mode", None)
+
+    # ------------------------------------------------------------- test hooks
+    # The reference's discovery-driven smoke hooks; transforms that need
+    # other inputs (complex spectra, frames, integer codes) override them.
+    def test_forward(self, x: torch.Tensor, time: Optional[torch.Tensor] = None):
+        if self.needs_scaling:
+            self.scale_data(x)
+        if time is None:
+            return self.forward(x)
+        return self.forward_with_time(x, time)
+
+    def test_inversion(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if not self.invertible:
+            raise NotImplementedError
+        if self.needs_scaling:
+            self.scale_data(x)
+        return {"inverted": self.invert(self.forward(x))}
+
+    def test_jit_transform(self, x: torch.Tensor, invert: bool = True):
+        """The ``scriptable`` check: forward (and invert) must trace with
+        ``torch.jit.trace`` and the traced forward runs on ``x``."""
+        if self.needs_scaling:
+            self.scale_data(x)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", torch.jit.TracerWarning)
+            fwd = torch.jit.trace(lambda v: self.forward(v), (x,), check_trace=False)
+            y = fwd(x)
+            if invert and self.invertible:
+                torch.jit.trace(lambda v: self.invert(v), (y,), check_trace=False)(y)
+        return y
 
     def extra_repr(self) -> str:
         skip = {"training", "device"}
@@ -302,6 +347,11 @@ class ComposeAudioTransform(AudioTransform):
             x, time = t.forward_with_time(x, time)
         return x, time
 
+    def output_frame_axis(self, axis_in: Optional[int] = None) -> Optional[int]:
+        for t in self.transforms:
+            axis_in = t.output_frame_axis(axis_in)
+        return axis_in
+
     # -------------------------------------------------------------- streaming
     def realtime(self) -> "ComposeAudioTransform":
         return ComposeAudioTransform([t.realtime() for t in self.transforms], sr=self.sr,
@@ -326,3 +376,21 @@ class ComposeAudioTransform(AudioTransform):
                 state[i], y, inversion_mode=inversion_mode, generator=generator
             )
         return new_states, y
+
+
+def apply_transform_to_list(transform, data, time=None, **kwargs):
+    """Map a transform over a Python list of tensors (with ``time``: a list
+    of start times, mapped through ``forward_with_time``)."""
+    if time is None:
+        return [transform(d, **kwargs) for d in data]
+    outs = [transform.forward_with_time(d, t) for d, t in zip(data, time)]
+    return [o[0] for o in outs], [o[1] for o in outs]
+
+
+def apply_invert_transform_to_list(transform, data, time=None, **kwargs):
+    """Map a transform's inverse over a Python list of tensors (``time``
+    passes through)."""
+    outs = [transform.invert(d, **kwargs) for d in data]
+    if time is None:
+        return outs
+    return outs, list(time)

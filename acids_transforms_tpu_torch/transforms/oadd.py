@@ -57,6 +57,9 @@ class OverlapAdd(AudioTransform):
         """Ring-buffer length in samples."""
         return self.frames_out * self.hop_length
 
+    def output_frame_axis(self, axis_in=None):
+        return -2  # (..., frames, n_fft)
+
     def propagate_mask(self, mask, x):
         """Sample mask -> per-frame mask ``(..., T, 1)``: the chunk is behind
         the carried ring (assumed valid), frame t starts at ``t hop - carry``."""
@@ -75,6 +78,10 @@ class OverlapAdd(AudioTransform):
             "input_buffer": torch.zeros(shape, device=self.device),
             "output_buffer": torch.zeros(shape, device=self.device),
         }
+
+    def reset(self, batch_shape: Tuple[int, ...] = ()) -> None:
+        """Fresh eager ring buffers for ``batch_shape``."""
+        self._state = self.init_state(tuple(batch_shape))
 
     # ------------------------------------------------------------- pure steps
     def step(self, state: State, x: torch.Tensor) -> Tuple[State, torch.Tensor]:

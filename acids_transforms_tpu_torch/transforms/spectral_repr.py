@@ -91,6 +91,24 @@ class _Representation(AudioTransform):
     def invert(self, x, inversion_mode=None, generator=None):
         return self._pad_nyquist(self.norm.invert(x))
 
+    # ------------------------------------------------------------- test hooks
+    def _test_spectrum(self, x: torch.Tensor) -> torch.Tensor:
+        """Representations consume complex spectra: an STFT runs first."""
+        from .stft import STFT
+
+        return STFT(sr=self.sr, device=self.device).forward(x)
+
+    def test_forward(self, x: torch.Tensor, time=None):
+        spec = self._test_spectrum(x)
+        self.scale_data(spec)
+        out = self.forward(spec)
+        return out if time is None else (out, time)
+
+    def test_inversion(self, x: torch.Tensor):
+        spec = self._test_spectrum(x)
+        self.scale_data(spec)
+        return {"inverted": self.invert(self.forward(spec))}
+
 
 class Real(_Representation):
     """Real part + norm."""
@@ -355,6 +373,15 @@ class SpectralRepresentation(AudioTransform):
             return torch.stack([m, p], dim=self.stack)
         return (m, p)
 
+    def output_frame_axis(self, axis_in=None):
+        if axis_in is None:
+            return None
+        if self.stack is None:
+            return axis_in  # tuple output: both halves keep the input layout
+        if self.stack >= 0:
+            return None  # a front-counted stack dim depends on the batch rank
+        return axis_in - 1 if self.stack >= axis_in else axis_in
+
     def _split(self, x):
         if self.stack is None:
             return x[0], x[1]
@@ -363,6 +390,23 @@ class SpectralRepresentation(AudioTransform):
     def invert(self, x, inversion_mode=None, generator=None):
         m, p = self._split(x)
         return self.magnitude.invert(m) * expi(self.phase.invert(p))
+
+    # ------------------------------------------------------------- test hooks
+    def test_forward(self, x: torch.Tensor, time=None):
+        from .stft import STFT
+
+        spec = STFT(sr=self.sr, device=self.device).forward(x)
+        self.scale_data(spec)
+        out = self.forward(spec)
+        return out if time is None else (out, time)
+
+    def test_inversion(self, x: torch.Tensor):
+        from .stft import STFT
+
+        stft_t = STFT(sr=self.sr, device=self.device)
+        spec = stft_t.forward(x)
+        self.scale_data(spec)
+        return {"inverted": stft_t.invert(self.invert(self.forward(spec)))}
 
 
 class Cartesian(SpectralRepresentation):

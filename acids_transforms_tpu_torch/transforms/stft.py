@@ -136,6 +136,9 @@ class STFT(AudioTransform):
     def ratio(self) -> int:
         return self.hop_length
 
+    def output_frame_axis(self, axis_in=None):
+        return -2  # (..., frames, bins)
+
     def propagate_mask(self, mask, x):
         """Sample mask (..., L) -> frame mask (..., T, 1): a frame is real iff
         the sample at its hop-start is real."""
@@ -341,6 +344,16 @@ class STFT(AudioTransform):
             fused=fused,
         )
 
+    # ------------------------------------------------------------- test hooks
+    def test_inversion(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The complex inversion and each ported phaseless mode."""
+        spec = self.forward(x)
+        outs = {"direct": self.invert(spec)}
+        for mode in self.get_inversion_modes():
+            if mode not in _UNPORTED_MODES:
+                outs[mode] = self.invert(spec.abs(), inversion_mode=mode)
+        return outs
+
     def realtime(self) -> "RealtimeSTFT":
         mode = (
             self.inversion_mode
@@ -462,6 +475,12 @@ class RealtimeSTFT(STFT):
 
     def reset(self, batch_shape: Tuple[int, ...] = (), mode: Optional[str] = None) -> None:
         self._state = self.init_state(tuple(batch_shape), mode=mode)
+
+    def get_batch_size(self) -> int:
+        return self.batch_size
+
+    def set_batch_size(self, batch_size: int) -> None:
+        self.batch_size = int(batch_size)
 
     # --------------------------------------------------------------- forward
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,13 @@ two launches a projection), all held against the generic chunk scan, and (phase
 4h) the dispatch outside the JAX package's gates: shapes no kernel covers
 (``STFT(1024, 300)``, ``RealtimeSTFT(1000, 250)``) on the eager route against
 the same calls on the CPU, and shapes the port's kernels take (1200/300) on
-the kernels.  The session encode (R, the magnitude encode), the full-K
+the kernels, and (phase 4i) BASELINE configs 2 and 3: ``Mono() + MFCC(1024,
+256)`` (power 2, 128 mels) and its ``norm_mode="unipolar"`` twin through
+``fuse_forward`` on kernel A (the rectangular bank, no contrast), held
+against the eager chain and A against its plain version at that shape, and
+the raw and layout transforms (MidSide, Stereo, Window, MuLaw and its
+one-hot modes, OneHot, Transpose, Squeeze, Unsqueeze) on CUDA tensors
+against the same calls on the CPU.  The session encode (R, the magnitude encode), the full-K
 melspec front end (E, F), the full-K Griffin-Lim step (J) and the streaming
 roundtrips (L, M), K's synthesis, the full-K representation kernels (G,
 H), the Griffin-Lim step of cosine-sum windows (C, its chain D, the
@@ -1797,6 +1803,162 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
             "DGT(768, 256) + PolarIF: the product route differs from the eager chain")
 
 
+def snr_db(ref: torch.Tensor, rec: torch.Tensor) -> float:
+    """SNR of ``rec`` against ``ref`` in float64 over their common length
+    (infinite where they are equal)."""
+    n = min(ref.shape[-1], rec.shape[-1])
+    ref, rec = ref[..., :n].double(), rec[..., :n].double()
+    err = ((ref - rec) ** 2).sum().item()
+    return float("inf") if err == 0 else 10.0 * math.log10((ref ** 2).sum().item() / err)
+
+
+def baseline_phase(dev, audio, mono, errs, counts):
+    """Phase 4i: BASELINE configs 2 and 3 through the entry points.
+
+    Config 3 (``bench.py:298-310``): ``Mono() + MFCC(1024, 256)`` (power 2,
+    128 mels, mel 0 an empty filter) and the same chain with
+    ``norm_mode="unipolar"`` fitted on the raw input, each through
+    ``fuse_forward``: one launch of kernel A each on the FFT route, the
+    fused output within 1e-4 of the eager ``chain.forward``'s largest value
+    (``bench.py:303-308``), mel 0 exactly as the eager chain has it (0
+    without a norm), the bf16 output the cast of the float32 one, int16 PCM
+    bit-identical to the pre-converted float; A at this shape within 2e-5 of
+    its plain version; the path's median host-clock time over 5 runs.
+    Config 2 (``bench.py:370-377``) on CUDA tensors: the MidSide (at least
+    120 dB), Stereo, Window(1024, 256) (exact) and MuLaw roundtrips at the
+    main path's B, MuLaw's codes against the same call on the CPU (flips of
+    +-1 on at most 1e-4 of the samples: the two ``log1pf`` may differ by an
+    ulp at a code's rounding boundary; equal codes decode within 1e-6), its
+    SNR within 0.5 dB of the CPU's; the one-hot modes and OneHot at B = 8
+    (the int32 one-hot of 128 clips would take 46 GB), against the same
+    calls on the CPU; Transpose, Squeeze and Unsqueeze equal to the CPU's.
+    Returns what phase 5 needs."""
+    import acids_transforms_tpu_torch as att
+    from acids_transforms_tpu_torch import fuse
+    from acids_transforms_tpu_torch import transforms as T
+    from acids_transforms_tpu_torch.ops.cuda import spectral
+
+    B, L = audio.shape[0], audio.shape[-1]
+    n_frames = 1 + L // HOP
+    log(f"[4i] BASELINE config 3: Mono() + MFCC({N_FFT}, {HOP}) (power 2, 128 mels) through fuse_forward, "
+        f"plain and with norm_mode='unipolar', on {B} stereo clips; config 2: the raw and layout transforms")
+    t_start = time.perf_counter()
+    chain = T.Mono() + T.MFCC(n_fft=N_FFT, hop_length=HOP)
+    mfcc = chain[1]
+    unip = (T.Mono() + T.MFCC(n_fft=N_FFT, hop_length=HOP, norm_mode="unipolar")).fit(audio)
+    spectral.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = att.fuse_forward(chain)(audio)
+    y_n = att.fuse_forward(unip)(audio)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launched = {k: v for k, v in spectral.launches.items() if v}
+    by_route = {k: v for k, v in spectral.routes.items() if v}
+    log(f"  two fused forwards {1e3 * (t1 - t0):.1f} ms; launches {launched}, by route {by_route}")
+    require(launched == {"fused_melspec": 2} and by_route == {"fused_melspec:fft": 2},
+            "config 3: expected one launch of A on the FFT route a chain")
+    counts["fused_melspec_mfcc:fft"] = by_route["fused_melspec:fft"]
+    for label, fitted, out in (("MFCC", chain, y), ("MFCC(norm_mode='unipolar')", unip, y_n)):
+        require(tuple(out.shape) == (B, mfcc.n_mels, n_frames) and out.dtype == torch.float32
+                and torch.isfinite(out).all().item(), f"config 3 {label}: output {tuple(out.shape)}")
+        ref = fitted.forward(audio)
+        e = rel_err(out, ref)
+        same0 = torch.equal(out[:, 0], ref[:, 0])
+        log(f"  {label}: fused vs eager chain.forward rel {e:.3e} (tol 1e-04); mel 0 as the eager chain's: {same0}")
+        require(e <= 1e-4 and same0, f"config 3 {label}: the fused forward differs from chain.forward")
+        del ref
+    require(bool((y[:, 0] == 0).all().item()), "config 3: mel 0 (an empty filter) is not exactly 0")
+    require(torch.equal(att.fuse_forward(chain, out_dtype=torch.bfloat16)(audio), y.to(torch.bfloat16)),
+            "config 3: the bf16 output is not the cast of the float32 one")
+    pcm = torch.round(audio * 32767.0).to(torch.int16)
+    require(torch.equal(att.fuse_forward(chain)(pcm), att.fuse_forward(chain)(pcm.to(torch.float32) * 2.0 ** -15)),
+            "config 3: int16 PCM is not bit-identical to the pre-converted float")
+    del pcm, y_n
+    log("  mel 0 exactly 0; bf16 output the rounded float32; int16 PCM bit-identical")
+    # A at this shape against its plain version: the rectangular bank (M = 128,
+    # mel 0 empty), power 2, no contrast, offset 0, scale 1
+    taps = fuse._mfcc_taps(mfcc)
+    kw = dict(mel_bank=mfcc.mel_bank, offset=0.0, scale=1.0, contrast="none", taps=taps, power=2.0)
+    y_k = spectral.fused_melspec(mono, N_FFT, HOP, **kw)
+    y_p = spectral.fused_melspec_reference(mono, N_FFT, HOP, **kw)
+    e = rel_err(y_k, y_p)
+    zero0 = bool((y_k[..., 0] == 0).all().item() and (y_p[..., 0] == 0).all().item())
+    errs["A_mfcc"] = abs_err(y_k, y_p)
+    log(f"  A at the MFCC shape {tuple(y_k.shape)} vs plain: rel {e:.3e} (tol 2e-05), abs {errs['A_mfcc']:.3e}; "
+        f"mel 0 exactly 0 in both: {zero0}")
+    require(e <= 2e-5 and zero0, "A at the MFCC shape disagrees with its plain version")
+    del y_k, y_p
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        att.fuse_forward(chain)(audio)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    log(f"  config 3 path (fuse_forward built and called, Mono + A + transpose), median of 5 runs: "
+        f"{statistics.median(walls):.2f} ms (host clock, to the card's end)")
+    del y
+
+    # config 2 on CUDA tensors, beside the JAX figures (BENCH_r05, on another
+    # signal and a TPU: MidSide 143.9 dB, MuLaw 38.4 dB, Window exact)
+    x, xc = audio, audio.cpu()
+    ms = T.MidSide()
+    s_ms = snr_db(x, ms.invert(ms.forward(x)))
+    ys = T.Stereo().forward(mono[:, None])
+    st_ok = torch.equal(ys.cpu(), T.Stereo(device="cpu").forward(mono[:, None].cpu())) and torch.equal(
+        T.Stereo().invert(ys), ys)
+    wd = T.Window(window_size=N_FFT, hop_size=HOP)
+    back = wd.invert(wd.forward(x))
+    w_ok = back.shape[-1] == HOP * (1 + (L - N_FFT) // HOP) + (N_FFT - HOP) and torch.equal(back, x[..., : back.shape[-1]])
+    del ys, back
+    codes = T.MuLaw().forward(x)
+    codes_c = T.MuLaw(device="cpu").forward(xc)
+    d = codes.cpu().long() - codes_c.long()
+    flips, max_flip = int((d != 0).sum().item()), int(d.abs().max().item())
+    dec = T.MuLaw().invert(codes)
+    e_dec = (dec.cpu() - T.MuLaw(device="cpu").invert(codes.cpu())).abs().max().item()
+    s_mu, s_mu_c = snr_db(x, dec), snr_db(xc, T.MuLaw(device="cpu").invert(codes_c))
+    del dec, d
+    log(f"  config 2 at B = {B}: MidSide SNR {s_ms:.1f} dB (JAX 143.9; need >= 120), Stereo equal to the CPU's: "
+        f"{st_ok}, Window(1024, 256) roundtrip exact: {w_ok}, MuLaw SNR {s_mu:.2f} dB, on the CPU {s_mu_c:.2f} dB "
+        f"(JAX 38.4; need within 0.5 dB); codes against the CPU's: {flips} of {codes.numel()} flipped (at most "
+        f"{max_flip}; allowed +-1 on 1e-4), equal codes decode within {e_dec:.1e} (tol 1e-6)")
+    require(s_ms >= 120.0, "config 2: MidSide roundtrip under 120 dB")
+    require(st_ok and w_ok, "config 2: the Stereo or the Window roundtrip is not exact")
+    require(codes.dtype == torch.int32 and max_flip <= 1 and flips <= 1e-4 * codes.numel() and e_dec <= 1e-6,
+            "config 2: MuLaw codes or their decode differ from the CPU's")
+    require(abs(s_mu - s_mu_c) <= 0.5, "config 2: MuLaw SNR not within 0.5 dB of the CPU's")
+    b8 = min(8, B)
+    x8, x8c = x[:b8], xc[:b8]
+    for mode in ("categorical", "channel"):
+        mk, mc = T.MuLaw(one_hot=mode), T.MuLaw(one_hot=mode, device="cpu")
+        oh = mk.forward(x8)
+        shape_ok = oh.dtype == torch.int32 and oh.shape[-1 if mode == "categorical" else -2] == 256
+        s_k = snr_db(x8, mk.invert(oh))
+        del oh
+        s_c = snr_db(x8c, mc.invert(mc.forward(x8c)))
+        log(f"  MuLaw one_hot={mode!r} at B = {b8}: SNR {s_k:.2f} dB, on the CPU {s_c:.2f} dB; int32, 256 classes: "
+            f"{shape_ok}")
+        require(shape_ok and abs(s_k - s_c) <= 0.5, f"config 2: MuLaw {mode} differs from the CPU's")
+    c8 = codes[:b8]
+    ohk, ohc = T.OneHot().fit(c8), T.OneHot(device="cpu").fit(c8.cpu())
+    r_k, r_c = ohk.invert(ohk.forward(c8)), ohc.invert(ohc.forward(c8.cpu()))
+    oh_ok = ohk.n_classes == ohc.n_classes and torch.equal(r_k.cpu(), r_c) and torch.equal(r_c, c8.cpu().long())
+    log(f"  OneHot at B = {b8}: {ohk.n_classes} classes fitted, roundtrip equal to the CPU's and to the codes: {oh_ok}")
+    require(oh_ok, "config 2: OneHot's roundtrip differs from the CPU's")
+    del codes, codes_c, r_k, r_c
+    lay_ok = {}
+    for name, kt, ct, inp in (("Transpose", T.Transpose(), T.Transpose(device="cpu"), x),
+                              ("Unsqueeze", T.Unsqueeze(dim=1), T.Unsqueeze(dim=1, device="cpu"), x),
+                              ("Squeeze", T.Squeeze(dim=1), T.Squeeze(dim=1, device="cpu"), mono[:, None])):
+        yk, yc = kt.forward(inp), ct.forward(inp.cpu())
+        lay_ok[name] = torch.equal(yk.cpu(), yc) and torch.equal(kt.invert(yk).cpu(), ct.invert(yc))
+    log(f"  layout transforms equal to the CPU's both ways: {lay_ok}; phase 4i {time.perf_counter() - t_start:.1f} s")
+    require(all(lay_ok.values()), "config 2: a layout transform differs from the CPU's")
+    return {"bank": mfcc.mel_bank, "taps": taps}
+
+
 def sweep_phase(args, dev, mono, bank, off, scl, taps, kernels, bound_of, wrappers):
     """Phase 6: kernel T, A's factored design built up stage by stage.  Runs
     the floor sweep through its entry point at the main path's shape (its
@@ -3291,6 +3453,8 @@ def main() -> int:
     gl_stream = stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream)
     # ----------------------------- 4h. shapes outside the kernels' structure
     structure_phase(dev, mono, stream, (spectral, glstep, pghi_kernel, ss), errs, counts)
+    # ------------------------------------------ 4i. BASELINE configs 2 and 3
+    base = baseline_phase(dev, audio, mono, errs, counts)
 
     # ------------------------------------------------------------ 5. times
     log("[5] kernel times at the main-path shape (CUDA events around runs of "
@@ -4309,6 +4473,29 @@ def main() -> int:
     for key, n_steps in (("K_walk", Tn), ("K_bidir", Tn // 2 + 1)):
         log(f"  {key} chain floor (model): {n_steps} serial steps x {K_STEP_CYCLES} cycles at {sm_mhz} MHz = "
             f"{1e3 * n_steps * K_STEP_CYCLES / (sm_mhz * 1e6):.4f} ms")
+    # A at phase 4i's MFCC shape: the rectangular bank (128 mels, mel 0
+    # empty), power 2, no contrast.  What the function needs: the mono clips
+    # read and the (B, T, 128) mels written once; an FFT a frame, the window,
+    # the power (3 a bin) and 2 a nonzero of the bank.  Library: torch.stft,
+    # abs() ** 2 and one product with the bank.
+    bank_m, nnz_m = base["bank"], int((base["bank"] != 0).sum().item())
+    kw_m = dict(mel_bank=bank_m, offset=0.0, scale=1.0, contrast="none", taps=base["taps"], power=2.0)
+
+    def lib_mfcc():
+        S = torch.stft(mono, N_FFT, HOP, window=window, center=True, pad_mode="reflect", return_complex=True)
+        return torch.matmul(S.abs().pow(2).transpose(-2, -1), bank_m)
+
+    specs.append(dict(
+        key="A_mfcc", name="fused_melspec_mfcc", front_end="fft",
+        source="acids_transforms_tpu_torch/csrc/spectral.cu (+ csrc/fft_smem.cuh)",
+        replaces="acids_transforms_tpu/ops/pallas/spectral.py:732",
+        launches=counts["fused_melspec_mfcc:fft"],
+        run=lambda: spectral.fused_melspec(mono, N_FFT, HOP, **kw_m),
+        plain=lambda: spectral.fused_melspec_reference(mono, N_FFT, HOP, **kw_m),
+        library=lib_mfcc,
+        bound=bound_of(4.0 * B * L + 4.0 * B * Tn * bank_m.shape[1] + 4.0 * bank_m.numel(),
+                       fft_flops + B * Tn * (N_FFT + 3.0 * F + 2.0 * nnz_m)),
+        ceiling=ceiling_of(fft_design_flops(N_FFT, B * Tn) + 3.0 * B * Tn * F + 2.0 * B * Tn * nnz_m)))
     kernels = []
     for s in specs:
         # turns: plain, kernel, plain; each time is the card's per call in

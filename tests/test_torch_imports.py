@@ -184,3 +184,42 @@ def test_streaming_entry_points_default_to_the_card():
     streaming.scan_invert(chain, torch.ones(1, 20, 257), 8, "random", backend="fused")
     assert all(v == 0 for v in sk.launches.values())
     assert streaming.plan_roundtrip(chain, (1, 3000), 1024) == "complex"   # device None: the card
+
+
+def test_config_2_and_3_entry_points_default_to_the_card():
+    """The raw, layout and MFCC classes run on the card unless asked
+    otherwise; the MFCC fused forward takes kernel A's plain version only
+    because the tensor lies on the CPU (no launch is counted); an input on
+    another device raises, through the fused forward too."""
+    import torch
+
+    import acids_transforms_tpu_torch as att
+    from acids_transforms_tpu_torch import transforms as T
+    from acids_transforms_tpu_torch.ops.cuda import spectral as sk
+
+    builds = {
+        "MFCC": lambda **kw: T.MFCC(n_fft=512, hop_length=128, **kw),
+        "MidSide": lambda **kw: T.MidSide(**kw), "Stereo": lambda **kw: T.Stereo(**kw),
+        "MuLaw": lambda **kw: T.MuLaw(one_hot="categorical", **kw), "OneHot": lambda **kw: T.OneHot(n_classes=4, **kw),
+        "Window": lambda **kw: T.Window(window_size=256, hop_size=64, **kw),
+        "Unsqueeze": lambda **kw: T.Unsqueeze(**kw), "Squeeze": lambda **kw: T.Squeeze(dim=1, **kw),
+        "Transpose": lambda **kw: T.Transpose(**kw),
+    }
+    if not torch.cuda.is_available():
+        for name, build in builds.items():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                build()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            att.fuse_forward(T.Mono() + T.MFCC())
+    chain = T.Mono(device="cpu") + builds["MFCC"](device="cpu")
+    sk.reset_launches()
+    y = att.fuse_forward(chain, backend="kernel")(torch.zeros(1, 2, 3000))
+    assert y.shape == (1, 128, 24) and y.device.type == "cpu"
+    assert all(v == 0 for v in sk.launches.values())
+    meta = torch.zeros(2, 2, 2000, device="meta")
+    for name, build in builds.items():
+        with pytest.raises(ValueError, match="lies on"):
+            build(device="cpu").forward(meta if name != "OneHot" else meta.long())
+    for backend in ("kernel", "eager"):
+        with pytest.raises(ValueError, match="lies on"):
+            att.fuse_forward(builds["MFCC"](device="cpu"), backend=backend)(meta[:, 0])

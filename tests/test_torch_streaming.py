@@ -63,8 +63,9 @@ def test_rfft_frames_matches_jax(impl):
     j = j_rfft_frames(jnp.asarray(fr), impl=impl)
     assert p.shape == j.shape and p.is_complex()
     assert rel(t2n(p), np.array(j)) <= 1e-5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rfft_frames(torch.as_tensor(fr), impl="matmul2")
+    # the radix-2 split is ported: it agrees with the JAX package's
+    p2 = rfft_frames(torch.as_tensor(fr), impl="matmul2")
+    assert rel(t2n(p2), np.array(j_rfft_frames(jnp.asarray(fr), impl="matmul2"))) <= 1e-5
 
 
 @pytest.mark.parametrize("n_fft,hop", SHAPES)

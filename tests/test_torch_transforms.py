@@ -104,9 +104,10 @@ def test_stft_modes_and_unported_raise():
         PT.STFT(inversion_mode="no_such_mode", device="cpu")
     pt.set_params(256, 64)
     assert pt.window.shape == (256,) and pt._window_taps is not None
+    # the last transform classes are ported: nothing is left to refuse
     for name in ("MFCC", "MidSide", "MuLaw"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            getattr(PT, name)
+        assert getattr(PT, name).__name__ == name
+    assert not PT._UNPORTED
     assert issubclass(PT.DGT, PT.STFT)
     rt = PT.DGT(n_fft=N_FFT, hop_length=HOP, device="cpu").realtime()
     assert isinstance(rt, PT.RealtimeDGT) and (rt.n_fft, rt.hop_length) == (N_FFT, HOP)
