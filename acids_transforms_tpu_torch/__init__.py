@@ -12,7 +12,7 @@ ROADMAP item.
 Everything runs on a CUDA device unless the caller passes ``device="cpu"``:
 constructors take ``device=None`` meaning ``"cuda"`` and raise without a card.
 """
-from . import convert, fuse, ops, streaming, transforms
+from . import convert, fuse, ops, regions, streaming, transforms
 from ._device import resolve_device
 from .fuse import fuse_fit, fuse_forward
 from .streaming import chunk_signal, scan_forward, scan_invert, scan_roundtrip
@@ -25,6 +25,7 @@ __all__ = [
     "ops",
     "fuse",
     "convert",
+    "regions",
     "streaming",
     "fuse_forward",
     "fuse_fit",

@@ -131,11 +131,13 @@ def load_jax_stream_state(
     ``Realtime*`` transform: nothing, or the RT-PGHI history ``mag_buffer
     (..., 2, F)`` / ``phase_buffer (..., F)`` of a ``pghi`` session, with a
     ``pghi_gl`` session's pinned context ``gl_mag`` / ``gl_phase (...,
-    gl_context, F)`` and pending magnitudes ``la_mag (..., lookahead, F)``) or
-    ``None`` for a stateless child.  A ``Realtime*`` entry's keys say its
-    session's mode.  Arrays land on the chain's device as float32.  Raises
-    when the number of entries, the keys, the trailing (non-batch) shapes or
-    the batch shapes do not match the state the port chain allocates itself."""
+    gl_context, F)`` and pending magnitudes ``la_mag (..., lookahead, F)``,
+    or a ``sinebank`` session's ``time_index`` (a scalar whatever the batch)
+    and ``random_phase (..., 1, F)``) or ``None`` for a stateless child.  A
+    ``Realtime*`` entry's keys say its session's mode.  Arrays land on the
+    chain's device as float32.  Raises when the number of entries, the keys,
+    the trailing (non-batch) shapes or the batch shapes do not match the
+    state the port chain allocates itself."""
     children = (
         list(port_chain.transforms)
         if isinstance(port_chain, ComposeAudioTransform)
@@ -153,8 +155,11 @@ def load_jax_stream_state(
         arrays = {k: np.asarray(v) for k, v in entry.items()}
         mode = None
         if isinstance(child, RealtimeSTFT):
-            mode = "pghi_gl" if "gl_mag" in arrays else "pghi" if "mag_buffer" in arrays else "random"
-        template = child.init_state((), mode=mode)
+            mode = ("pghi_gl" if "gl_mag" in arrays else "pghi" if "mag_buffer" in arrays
+                    else "sinebank" if "time_index" in arrays else "random")
+        # the template's shapes only: a generator of its own leaves the
+        # chain's draws alone
+        template = child.init_state((), mode=mode, generator=torch.Generator(device=child.device))
         if template is None or set(template) != set(arrays):
             raise ValueError(
                 "entry %d has keys %s, %s allocates %s"
@@ -167,7 +172,8 @@ def load_jax_stream_state(
             if t.ndim < len(tail) or tuple(t.shape[t.ndim - len(tail):]) != tail:
                 raise ValueError("entry %d.%s: shape %s does not fit the port's (..., %s)"
                                  % (i, k, tuple(t.shape), ", ".join(map(str, tail))))
-            batch.add(tuple(t.shape[: t.ndim - len(tail)]))
+            if k != "time_index":  # the sinebank's clock is one scalar for the whole batch
+                batch.add(tuple(t.shape[: t.ndim - len(tail)]))
             conv[k] = t
         if len(batch) > 1:
             raise ValueError("entry %d: its arrays have the batch shapes %s" % (i, sorted(batch)))

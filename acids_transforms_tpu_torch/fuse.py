@@ -31,11 +31,18 @@ Backends:
 - ``"eager"``: the fused-GEMM torch formulation (windowed frames against the
   DFT matrices, then the channels' epilogues on the real/imaginary parts).
 - ``"auto"`` (default): per call, the kernel when the input lies on a CUDA
-  device and the chain is eligible, else the eager formulation.
+  device, the chain is eligible and its shape lies inside the kernel's
+  region measured on the H100 (``regions.py``: per pattern the n_fft range
+  and front ends where the kernel won), else the eager formulation, which
+  was measured faster at the shapes the kernel covers outside the region
+  (n_fft 64 for the cosine-sum magnitude, Polar and MFCC; 768 on the full-K
+  magnitude and Polar product route).
 
 ``fuse_fit`` is the same story for the *fit* pass: the kernel's statistics
 epilogue reduces the normalization statistics (of both channels, for the
-representation pattern) without writing the spectrogram.
+representation pattern) without writing the spectrogram; under ``auto`` a
+window without taps takes it only inside its measured region
+(``regions.fit_fullk_region_ok``).
 
 Not ported yet (ROADMAP Queue 1 item 12): ``mesh=``.
 """
@@ -54,6 +61,7 @@ from .ops.cuda.spectral import (
 )
 from .ops.fft import _resolve_impl, stft_real, taps_for_window
 from .ops.windows import hann_window
+from .regions import fit_fullk_region_ok, melspec_region_ok, mfcc_region_ok, repr_region_ok
 from .transforms.base import AudioTransform, ComposeAudioTransform
 from .transforms.dgt import DGT
 from .transforms.mel import MFCC
@@ -386,6 +394,34 @@ def _kernel_fused_repr(mono, stft_t: STFT, rep, second: str, out_dtype):
     return _with_eager_gradient(kernel_forward, eager_forward)
 
 
+def _melspec_region(stft_t) -> bool:
+    return melspec_region_ok(stft_t.n_fft, stft_t.hop_length, stft_t._window_taps is not None)
+
+
+def _repr_region(rmatch) -> bool:
+    stft_t, second = rmatch[1], rmatch[3]
+    return repr_region_ok(stft_t.n_fft, stft_t.hop_length, stft_t._window_taps is not None, second)
+
+
+def _kernel_preferred(chain: AudioTransform) -> bool:
+    """The ``auto`` decision for a CUDA input, as data: a kernel covers the
+    chain and its shape lies inside the kernel's measured region."""
+    m = _match_mfcc(chain, "kernel")
+    if m is not None:
+        return mfcc_region_ok(m[1].n_fft, m[1].hop_length)
+    m = _match_melspec(chain, "kernel")
+    if m is not None:
+        return _melspec_region(m[1])
+    m = _match_repr(chain, "kernel")
+    return m is not None and _repr_region(m)
+
+
+def _fit_region(stft_t) -> bool:
+    """A window with taps fits on the kernel wherever it is available, one
+    without (F, H full-K) inside its measured region."""
+    return stft_t._window_taps is not None or fit_fullk_region_ok(stft_t.n_fft)
+
+
 def fuse_forward(
     chain: AudioTransform,
     backend: str = "auto",
@@ -400,7 +436,8 @@ def fuse_forward(
     float32 from the kernel and casts after its transpose and norm).  Matched chains also accept
     **int16 PCM** input, read as ``x / 32768``: bit-identical to
     pre-converting.  An explicit ``backend="kernel"`` on a chain the kernel
-    does not cover raises.
+    does not cover raises; it takes the kernel outside the measured region
+    too.
     """
     if backend not in _BACKENDS:
         raise ValueError("unknown fuse backend %r" % backend)
@@ -409,9 +446,11 @@ def fuse_forward(
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("fuse_forward: out_dtype must be float32 or bfloat16, got %s" % out_dtype)
     mmatch = _match_mfcc(chain, "eager")
-    if mmatch is not None:
-        kmatch = _match_mfcc(chain, "kernel")
-        if backend == "kernel":
+    match = _match_melspec(chain, "eager") if mmatch is None else None
+    rmatch = _match_repr(chain, "eager") if mmatch is None and match is None else None
+    if backend == "kernel":
+        if mmatch is not None:
+            kmatch = _match_mfcc(chain, "kernel")
             if kmatch is None:
                 raise ValueError(
                     "backend='kernel' requested but kernel A does not cover this MFCC "
@@ -419,21 +458,11 @@ def fuse_forward(
                     "use backend='auto' to fall back"
                 )
             return _kernel_fused_mfcc(*kmatch, out_dtype)
-        eager_m = _eager_fused_mfcc(*mmatch, out_dtype)
-        if backend == "eager" or kmatch is None:
-            return eager_m
-        kernel_m = _kernel_fused_mfcc(*kmatch, out_dtype)
-
-        def auto_mfcc(x: torch.Tensor) -> torch.Tensor:
-            return kernel_m(x) if x.is_cuda else eager_m(x)
-
-        return auto_mfcc
-    if backend == "kernel":
-        match = _match_melspec(chain, "kernel")
-        if match is not None:
-            return _kernel_fused(*match, out_dtype)
-        rmatch = _match_repr(chain, "kernel")
-        if rmatch is None:
+        kmatch = _match_melspec(chain, "kernel")
+        if kmatch is not None:
+            return _kernel_fused(*kmatch, out_dtype)
+        kmatch = _match_repr(chain, "kernel")
+        if kmatch is None:
             raise ValueError(
                 "backend='kernel' requested but no fused kernel covers this "
                 "chain (needs a [Mono?] + (STFT | DGT) + (Magnitude | Polar | "
@@ -441,24 +470,16 @@ def fuse_forward(
                 "contrast and a shape inside fused_melspec_available); use "
                 "backend='auto' to fall back"
             )
-        return _kernel_fused_repr(*rmatch, out_dtype)
-    match = _match_melspec(chain, "eager")
-    rmatch = _match_repr(chain, "eager") if match is None else None
-    if rmatch is not None:
-        eager_r = _eager_fused_repr(*rmatch, out_dtype)
-        kmatch = _match_repr(chain, "kernel")
-        if backend == "eager" or kmatch is None:
-            return eager_r
-        kernel_r = _kernel_fused_repr(*kmatch, out_dtype)
-
-        def auto_repr(x: torch.Tensor):
-            return kernel_r(x) if x.is_cuda else eager_r(x)
-
-        return auto_repr
-    if match is None:
-        if out_dtype == torch.float32:
-            return chain.forward
-
+        return _kernel_fused_repr(*kmatch, out_dtype)
+    if mmatch is not None:
+        eager = _eager_fused_mfcc(*mmatch, out_dtype)
+    elif match is not None:
+        eager = _eager_fused(*match, out_dtype)
+    elif rmatch is not None:
+        eager = _eager_fused_repr(*rmatch, out_dtype)
+    elif out_dtype == torch.float32:
+        return chain.forward
+    else:
         def _cast_fallback(x):
             y = chain.forward(x)
             if y.is_complex():
@@ -469,15 +490,11 @@ def fuse_forward(
             return y.to(out_dtype)
 
         return _cast_fallback
-    eager = _eager_fused(*match, out_dtype)
-    if backend == "eager":
+    if backend == "eager" or not _kernel_preferred(chain):
         return eager
-    kmatch = _match_melspec(chain, "kernel")
-    if kmatch is None:
-        return eager
-    kernel = _kernel_fused(*kmatch, out_dtype)
+    kernel = fuse_forward(chain, backend="kernel", out_dtype=out_dtype)
 
-    def auto_forward(x: torch.Tensor) -> torch.Tensor:
+    def auto_forward(x: torch.Tensor):
         return kernel(x) if x.is_cuda else eager(x)
 
     return auto_forward
@@ -530,7 +547,8 @@ def fuse_fit(
     ``fused_repr_stats`` for both channels of a representation): neither the
     framed signal nor the spectrogram is ever written out.  Matched chains
     accept int16 PCM input.  ``backend="auto"`` takes the kernel for a CUDA
-    input on an eligible chain and ``chain.fit`` otherwise;
+    input on an eligible chain inside its region (:func:`_fit_region`) and
+    ``chain.fit`` otherwise;
     ``backend="kernel"`` forces the statistics path (its plain PyTorch version
     on a CPU tensor) and raises on a chain it does not cover.  A ``mask``
     always takes the exact cascade.
@@ -557,8 +575,10 @@ def fuse_fit(
     if not _fittable(norm):
         return chain.fit  # nothing to fit on this pattern
 
+    eager = backend == "auto" and not _fit_region(stft_t)
+
     def fit(x: torch.Tensor, mask=None) -> AudioTransform:
-        if mask is not None or (backend == "auto" and not x.is_cuda):
+        if mask is not None or (backend == "auto" and not x.is_cuda) or eager:
             return chain.fit(_from_pcm(x), mask=mask)
         y = mono.forward(_from_pcm_for_mono(mono, x)) if mono is not None else x
         st = fused_melspec_stats(
@@ -585,9 +605,10 @@ def _fuse_fit_repr(chain, backend, mono, stft_t, rep, second):
     if not (_fittable(rep.magnitude.norm) or _fittable(rep.phase.norm)):
         return chain.fit  # both channels unnormalized: nothing to fit
     contrast, _, weighted = _repr_config(rep, second)
+    eager = backend == "auto" and not _fit_region(stft_t)
 
     def fit(x: torch.Tensor, mask=None) -> AudioTransform:
-        if mask is not None or (backend == "auto" and not x.is_cuda):
+        if mask is not None or (backend == "auto" and not x.is_cuda) or eager:
             return chain.fit(_from_pcm(x), mask=mask)
         y = mono.forward(_from_pcm_for_mono(mono, x)) if mono is not None else x
         st = fused_repr_stats(

@@ -15,27 +15,29 @@ at once (``ops/cuda/stream_step.py``)::
 Dispatch (``plan_forward`` / ``plan_invert`` / ``plan_roundtrip`` make the
 decision, the scans execute it):
 
-* ``backend="auto"`` takes a session kernel on a CUDA tensor whenever the
-  chain and shape are covered, and the generic chunk scan on a CPU tensor
-  (as the JAX package's ``auto`` does off the TPU).  A covered call whose
-  kernel is not ported yet (``sinebank``) raises ``NotImplementedError`` on a
-  CUDA tensor naming its ROADMAP item; a chain that neither the JAX
-  package's overlap-add layouts nor the session's kernels cover (for one,
-  hop 250) runs the generic scan, as it does in the JAX package.
-* ``backend="fused"`` takes the session on either device (on the CPU its
-  kernel wrapper runs the plain PyTorch version, like the JAX package's
-  interpret mode) and raises ``ValueError`` when no session covers the call.
+* ``backend="auto"`` takes a session kernel on a CUDA tensor where the chain
+  and shape are covered and the session sits inside the port's measured
+  region (``regions.py``: the batch cap of its mode, and for the phaseless
+  sessions the ``(B, T, F)`` float32 angle buffer under ``angle_cap_bytes``),
+  and the generic chunk scan otherwise and on a CPU tensor (as the JAX
+  package's ``auto`` does off the TPU).  A ``sinebank`` session takes its
+  closed form (torch ops, no kernel) on either device while its ``(B, T,
+  n_fft)`` frame tensor stays under ``sinebank_cap_bytes``.  A chain that
+  neither the JAX package's overlap-add layouts nor the session's kernels
+  cover (for one, hop 250) runs the generic scan, as it does in the JAX
+  package.
+* ``backend="fused"`` takes the session on either device at any size (on the
+  CPU its kernel wrapper runs the plain PyTorch version, like the JAX
+  package's interpret mode) and raises ``ValueError`` when no session covers
+  the call.
 * ``backend="generic"`` forces the chunk scan.
-
-The TPU's batch caps and angle-buffer footprint gates
-(``dispatch_regions.json``) are TPU crossovers and are not carried over; the
-port's own table waits for ``regions.py`` (ROADMAP Queue 1 item 9b(iii)).
 
 Random modes take one ``torch.Generator`` (``generator=``) where the JAX
 package takes a key; None means one seeded with 0 for the session.  The
-generic scan hands it to ``chain.step_invert`` chunk by chunk and the session
-kernels draw their angles from it in the same order and shapes, so on one
-device both routes see the same angles.  ``mesh=`` (multi-device sessions)
+generic scan hands it to ``chain.init_state`` (the sinebank's phases) and to
+``chain.step_invert`` chunk by chunk, and the session kernels and the closed
+form draw from it in the same order and shapes, so on one device both routes
+see the same angles.  ``mesh=`` (multi-device sessions)
 raises ``NotImplementedError`` (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
@@ -43,8 +45,11 @@ from __future__ import annotations
 import copy
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 
+from .ops.framing import overlap_add
+from .regions import angle_cap_bytes, batch_cap, sinebank_cap_bytes
 from .transforms.base import AudioTransform
 
 __all__ = [
@@ -57,12 +62,6 @@ __all__ = [
     "scan_roundtrip",
     "session_frame_times",
 ]
-
-#: sessions whose kernel comes with a later slice
-_UNPORTED_PLANS = {
-    "sinebank": "Queue 1 item 9b(ii) (sinebank_stream, _sinebank_session)",
-}
-
 
 def _session_parts(chain):
     """Recognize ``[OverlapAdd, RealtimeSTFT]`` and ``[OverlapAdd,
@@ -101,19 +100,41 @@ def _check_backend(name: str, backend: str) -> None:
         )
 
 
-def _decide(plan: Optional[str], backend: str, device) -> str:
+def _batch_elems(shape) -> int:
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return n
+
+
+def _cap_ok(mode: str, batch_elems: int) -> bool:
+    cap = batch_cap(mode)
+    return cap is None or batch_elems <= cap
+
+
+def _angles_fit(rt, batch_elems: int, n_frames: int) -> bool:
+    """The phaseless sessions draw their whole ``(B, T, F)`` float32 angle
+    buffer up front (``ops/cuda/stream_step.py:session_angles``)."""
+    return batch_elems * n_frames * rt.n_bins * 4 <= angle_cap_bytes()
+
+
+def _sinebank_fits(sub2, mag_shape, chunk_frames: int) -> bool:
+    """The closed form holds the session's ``(B, T, n_fft)`` float32 frames
+    (and ``(B, T, F)`` angles, sines and cosines beside them)."""
+    T = -(-mag_shape[-2] // chunk_frames) * chunk_frames
+    return _batch_elems(mag_shape[:-2]) * T * sub2.transforms[1].n_fft * 4 <= sinebank_cap_bytes()
+
+
+def _decide(plan: Optional[str], backend: str, device, inside: bool) -> str:
     """The shared rule: ``plan`` is the session that covers the call (None:
-    none does)."""
+    none does), ``inside`` whether the call lies in its measured region."""
     if backend == "generic" or plan is None:
         return "generic"
-    if backend == "auto" and not _on_card(device):
+    if backend == "fused":
+        return plan
+    if plan != "sinebank" and not _on_card(device):
         return "generic"
-    if plan in _UNPORTED_PLANS:
-        raise NotImplementedError(
-            "the %r streaming session is not ported yet (ROADMAP %s); use "
-            "backend='generic'" % (plan, _UNPORTED_PLANS[plan])
-        )
-    return plan
+    return plan if inside else "generic"
 
 
 def plan_forward(
@@ -145,7 +166,8 @@ def plan_forward(
             "layout the session kernels cover); use backend='auto' to fall back to "
             "the generic scan"
         )
-    return _decide("fused" if available else None, backend, device)
+    return _decide("fused" if available else None, backend, device,
+                   _cap_ok("encode", _batch_elems(x_shape[:-1])))
 
 
 def plan_invert(
@@ -158,9 +180,9 @@ def plan_invert(
     device=None,
 ) -> str:
     """The :func:`scan_invert` dispatch decision, as data: ``"random"``,
-    ``"pghi"``, ``"pghi_gl"`` or ``"complex"`` (decode session kernels) or
-    ``"generic"``; a covered ``"sinebank"`` session raises
-    ``NotImplementedError`` until its slice (see :func:`plan_forward`)."""
+    ``"pghi"``, ``"pghi_gl"`` or ``"complex"`` (decode session kernels),
+    ``"sinebank"`` (the closed form) or ``"generic"`` (see
+    :func:`plan_forward`)."""
     from .ops.cuda import stream_step as ss
 
     _check_backend("scan_invert", backend)
@@ -186,7 +208,22 @@ def plan_invert(
             "None, 2-chain only — and a layout the session kernels cover); use "
             "backend='auto' to fall back to the generic scan"
         )
-    return _decide(plan, backend, device)
+    return _decide(plan, backend, device, plan is not None and _inside(plan, chain, y_shape[:-2], y_shape, chunk_frames))
+
+
+def _inside(plan: str, chain, batch_shape, mag_shape, chunk_frames: int, complex_mode: str = "complex_decode") -> bool:
+    """Whether a covered session lies inside its measured region: the batch
+    cap of its mode, the angle buffer of the phaseless sessions, the frame
+    tensor of the sinebank's closed form.  ``mag_shape`` is the session's
+    ``(..., T, F)`` (T before the last chunk's padding)."""
+    sub2 = _session_parts(chain)[0]
+    if plan == "sinebank":
+        return _sinebank_fits(sub2, mag_shape, chunk_frames)
+    batch = _batch_elems(batch_shape)
+    if plan == "complex":
+        return _cap_ok(complex_mode, batch)
+    n_frames = -(-mag_shape[-2] // chunk_frames) * chunk_frames
+    return _angles_fit(sub2.transforms[1], batch, n_frames) and _cap_ok(plan, batch)
 
 
 def _same_framing(sub2) -> bool:
@@ -203,9 +240,9 @@ def plan_roundtrip(
     device=None,
 ) -> str:
     """The :func:`scan_roundtrip` dispatch decision, as data: ``"complex"``,
-    ``"random"``, ``"pghi"`` or ``"pghi_gl"`` (session kernels) or
-    ``"generic"``; a covered ``"sinebank"`` session raises
-    ``NotImplementedError`` until its slice (see :func:`plan_forward`)."""
+    ``"random"``, ``"pghi"`` or ``"pghi_gl"`` (session kernels),
+    ``"sinebank"`` (the encode, then the closed form) or ``"generic"`` (see
+    :func:`plan_forward`)."""
     from .ops.cuda import stream_step as ss
 
     _check_backend("scan_roundtrip", backend)
@@ -238,7 +275,12 @@ def plan_roundtrip(
             "a hop multiple, a layout the kernels cover); use backend='auto' to "
             "fall back to the generic scan"
         )
-    return _decide(plan, backend, device)
+    inside = False
+    if plan is not None:
+        T_c = max(chunk_size // sub2.transforms[1].hop_length, 1)
+        mag_shape = tuple(x_shape[:-1]) + (-(-x_shape[-1] // chunk_size) * T_c, sub2.transforms[1].n_bins)
+        inside = _inside(plan, chain, x_shape[:-1], mag_shape, T_c, complex_mode="complex")
+    return _decide(plan, backend, device, inside)
 
 
 def chunk_signal(x: torch.Tensor, chunk_size: int) -> torch.Tensor:
@@ -266,6 +308,43 @@ def session_frame_times(chain: AudioTransform, chunk_size: int, n_chunks: int) -
     tmap = torch.atleast_1d(tmap).to(torch.float32)
     starts = torch.arange(n_chunks, device=dev, dtype=torch.float32) * (chunk_size / float(snap.sr))
     return (tmap[None, :] + starts[:, None]).reshape(-1)
+
+
+def _sinebank_clock(n: int, d: float) -> np.ndarray:
+    """The ``time_index`` of chunks ``0 .. n-1``, ``(n,)`` float32: ``t_{i+1} =
+    t_i + d`` rounded to float32 at each step, as the chunk scan advances it."""
+    t = np.zeros(n, np.float32)
+    for i in range(1, n):
+        t[i] = t[i - 1] + np.float32(d)
+    return t
+
+
+def _sinebank_session(sub2, mag: torch.Tensor, chunk_frames: int,
+                      generator: torch.Generator) -> torch.Tensor:
+    """The whole sinebank decode in closed form, no chunk loop.
+
+    The sinebank's carry is a deterministic ``time_index`` (``t_{i+1} = t_i +
+    T_c hop / sr``) and one ``random_phase`` draw, so every frame's oscillator
+    phases are known up front: ``RealtimeSTFT.sinebank_frames`` (the two
+    angle-addition products of its stream step) runs once at session size
+    from every chunk's start time, then one
+    overlap-add (every output sample sums the frames the chunked ring
+    recombination of ``OverlapAdd.step_invert`` sums).  ``time_index`` is
+    accumulated in float32 chunk by chunk, as the chunk scan does (a direct
+    ``i d`` product would detune long sessions), and ``random_phase`` is the
+    same draw from ``generator``, in the same order, as the scan's
+    ``init_state``: on one device both routes build the same angles."""
+    ola_t, rt = sub2.transforms[0], sub2.transforms[1]
+    T = mag.shape[-2]
+    n = -(-T // chunk_frames)
+    pad = n * chunk_frames - T
+    if pad:
+        mag = torch.nn.functional.pad(mag, (0, 0, 0, pad))
+    rp = sub2.init_state(tuple(mag.shape[:-2]), mode="sinebank", generator=generator)[1]["random_phase"]
+    starts = torch.as_tensor(_sinebank_clock(n, chunk_frames * rt.hop_length / rt.sr), device=mag.device)
+    frames = rt.sinebank_frames(mag, starts, rp)
+    y = overlap_add(frames * rt.inv_window, rt.hop_length)
+    return y[..., : T * rt.hop_length] / ola_t.gain_compensation
 
 
 def _session_generator(generator: Optional[torch.Generator], device) -> torch.Generator:
@@ -359,7 +438,8 @@ def scan_invert(
     spectrum); feature chains ``[..., Magnitude]`` run ``Magnitude.invert``
     on the whole session first (stateless and frame-local: equal to the
     per-chunk application).  ``"pghi_gl"`` runs O: per chunk the seeded
-    recurrence and the projections, then P's synthesis."""
+    recurrence and the projections, then P's synthesis.  ``"sinebank"``
+    takes a closed form on either device (:func:`_sinebank_session`)."""
     from .ops.cuda.stream_step import (
         make_fused_complex_invert,
         make_fused_pghi_gl_invert,
@@ -371,6 +451,9 @@ def scan_invert(
     plan = plan_invert(chain, tuple(y.shape), chunk_frames, inversion_mode,
                        y_is_complex=y.is_complex(), backend=backend, device=y.device)
     g = _session_generator(generator, y.device)
+    if plan == "sinebank":
+        sub2, mag_t = _session_parts(chain)
+        return _sinebank_session(sub2, mag_t.invert(y) if mag_t is not None else y, chunk_frames, g)
     if plan == "complex":
         return make_fused_complex_invert(_session_parts(chain)[0], chunk_frames)(y)
     if plan in ("random", "pghi", "pghi_gl"):
@@ -385,7 +468,7 @@ def scan_invert(
     pad = n * chunk_frames - T
     if pad:
         y = torch.nn.functional.pad(y, (0, 0, 0, pad))
-    state = chain.init_state(tuple(y.shape[:-2]), mode=inversion_mode)
+    state = chain.init_state(tuple(y.shape[:-2]), mode=inversion_mode, generator=g)
     recs = []
     for i in range(n):
         state, rec = chain.step_invert(
@@ -418,7 +501,9 @@ def scan_roundtrip(
     and the projections, then P's synthesis); a ``[..., Magnitude]`` chain
     runs the magnitude encode, the Magnitude forward and invert on the whole
     session, then P (``"random"``), Q (``"pghi"``) or O's decode
-    (``"pghi_gl"``)."""
+    (``"pghi_gl"``).  ``"sinebank"`` encodes with :func:`scan_forward` (R on
+    the card), takes the magnitudes (through the Magnitude's forward and
+    invert on a 3-chain) and decodes by the closed form."""
     from .ops.cuda.stream_step import (
         make_fused_magnitude_session,
         make_fused_pghi_gl_invert,
@@ -434,6 +519,11 @@ def scan_roundtrip(
     plan = plan_roundtrip(chain, tuple(x.shape), chunk_size, inversion_mode, backend=backend,
                           device=x.device)
     g = _session_generator(generator, x.device)
+    if plan == "sinebank":
+        sub2, mag_t = _session_parts(chain)
+        spec, _ = scan_forward(sub2, x, chunk_size)
+        mags = mag_t.invert(mag_t.forward(spec)) if mag_t is not None else spec.abs()
+        return _sinebank_session(sub2, mags, chunk_size // sub2.transforms[1].hop_length, g)
     if plan == "complex":
         return make_fused_roundtrip(chain, chunk_size)(x)
     if plan in ("random", "pghi", "pghi_gl"):
@@ -450,7 +540,7 @@ def scan_roundtrip(
 
     # states are mode-minimal: each stateful child allocates the carry of
     # the session's inversion mode
-    state = chain.init_state(tuple(x.shape[:-1]), mode=inversion_mode)
+    state = chain.init_state(tuple(x.shape[:-1]), mode=inversion_mode, generator=g)
     recs = []
     for chunk in chunk_signal(x, chunk_size):
         state, y = chain.step(state, chunk)

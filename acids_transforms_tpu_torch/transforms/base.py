@@ -146,10 +146,12 @@ class AudioTransform(nn.Module):
         """The streaming variant of this transform (default: itself)."""
         return self
 
-    def init_state(self, batch_shape: Tuple[int, ...] = (), mode: Optional[str] = None):
+    def init_state(self, batch_shape: Tuple[int, ...] = (), mode: Optional[str] = None,
+                   generator: Optional[torch.Generator] = None):
         """Fresh streaming state (default: stateless, ``None``).  ``mode`` (an
         inversion-mode name) lets a stateful transform allocate only the carry
-        that mode needs."""
+        that mode needs; ``generator`` drives a carry that is drawn (the
+        sinebank's oscillator phases)."""
         return None
 
     def step(self, state, x: torch.Tensor):
@@ -357,8 +359,10 @@ class ComposeAudioTransform(AudioTransform):
         return ComposeAudioTransform([t.realtime() for t in self.transforms], sr=self.sr,
                                      device=self.device)
 
-    def init_state(self, batch_shape: Tuple[int, ...] = (), mode: Optional[str] = None):
-        return [t.init_state(batch_shape, mode=mode) for t in self.transforms]
+    def init_state(self, batch_shape: Tuple[int, ...] = (), mode: Optional[str] = None,
+                   generator: Optional[torch.Generator] = None):
+        """Left to right, the one ``generator`` handed to every child."""
+        return [t.init_state(batch_shape, mode=mode, generator=generator) for t in self.transforms]
 
     def step(self, state, x):
         new_states = []

@@ -26,7 +26,7 @@ class DGT(STFT):
     Inversion modes: ``pghi`` (default; peak-anchored scan integration, on the
     card one kernel for the recurrence and one for the synthesis),
     ``pghi_bidir``, ``pghi_exact`` (exact heap on the host), ``pghi_gl``,
-    ``griffin_lim``, ``random``, ``keep_input``; ``sinebank`` still raises.
+    ``griffin_lim``, ``random``, ``keep_input`` and ``sinebank``.
     """
 
     def __init__(

@@ -72,7 +72,8 @@ class OverlapAdd(AudioTransform):
         return mask.index_select(-1, starts)[..., :, None]
 
     # ------------------------------------------------------------------ state
-    def init_state(self, batch_shape: Tuple[int, ...] = (), mode: Optional[str] = None) -> State:
+    def init_state(self, batch_shape: Tuple[int, ...] = (), mode: Optional[str] = None,
+                   generator: Optional[torch.Generator] = None) -> State:
         shape = tuple(batch_shape) + (self._carry,)
         return {
             "input_buffer": torch.zeros(shape, device=self.device),

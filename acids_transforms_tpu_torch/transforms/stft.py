@@ -1,22 +1,22 @@
 """STFT transform pair: offline and per-frame streaming (twin of the JAX
 ``transforms/stft.py``).
 
-``STFT`` ported: forward, the complex least-squares inversion and the
-phaseless modes ``griffin_lim``, ``pghi``, ``pghi_bidir``, ``pghi_exact``,
-``pghi_gl``, ``random`` and ``keep_input``; on a CUDA tensor ``griffin_lim``
-and ``pghi_gl`` run the Griffin-Lim kernels of ``ops/cuda/glstep.py``.
-``sinebank`` raises ``NotImplementedError`` until its slice (ROADMAP Queue 1
-item 8).
+``STFT`` ported: forward, the complex least-squares inversion and every
+phaseless mode of the JAX package: ``griffin_lim``, ``pghi``, ``pghi_bidir``,
+``pghi_exact``, ``pghi_gl``, ``random``, ``keep_input`` and ``sinebank`` (the
+additive resynthesis, bins in blocks so that peak memory is ``O(block * L)``);
+on a CUDA tensor ``griffin_lim`` and ``pghi_gl`` run the Griffin-Lim kernels
+of ``ops/cuda/glstep.py``.
 
 ``RealtimeSTFT`` ported: the per-frame forward, the dual-window synthesis and
 the streaming inversion (``init_state`` / ``step_invert``) of the complex
 spectrum and of the modes ``keep_input``, ``random``, ``pghi`` (causal
 RT-PGHI carrying two magnitude frames and one phase frame; ``pghi_exact`` maps
-to it, there is no heap online) and ``pghi_gl`` (the RT-PGHI seed polished by
+to it, there is no heap online), ``pghi_gl`` (the RT-PGHI seed polished by
 ``gl_iterations`` windowed consistency projections with ``gl_context``
-committed frames pinned, optionally ``lookahead_frames`` of delayed commit).
-Its streaming mode ``sinebank`` (and its carried state) raises
-``NotImplementedError`` until its slice (ROADMAP Queue 1 item 9b(ii)).
+committed frames pinned, optionally ``lookahead_frames`` of delayed commit)
+and ``sinebank`` (an oscillator bank carrying its ``time_index`` and its
+``random_phase`` across chunks).
 
 The PGHI modes work on any named window through its effective
 time-frequency ratio (``gamma``).  On a CUDA tensor ``pghi`` / ``pghi_bidir``
@@ -26,11 +26,14 @@ limit bites), and run the recurrence kernel or ``pghi_scan`` with the ISTFT
 elsewhere (``pghi_kernel.pghi_dispatch``), as the JAX package does on a TPU;
 on a CPU tensor they run ``ops/pghi.py:pghi_scan`` and
 the ISTFT (both as the causal scan: the bidirectional order exists for the
-card).
+card).  ``sinebank`` is torch ops on both devices (the JAX package writes it
+in XLA, not as a kernel).
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
+
+import math
 
 import numpy as np
 import torch
@@ -38,28 +41,46 @@ import torch
 from ..ops.fft import irfft_frames, istft, rfft_frames, stft as stft_op, taps_for_window
 from ..ops.framing import frame, overlap_add
 from ..ops.griffinlim import griffin_lim
+from ..ops.interp import interp_linear
 from ..ops.pghi import pghi_heap_numpy, pghi_scan, random_angles
 from ..ops.windows import dual_window, get_window, window_gamma
 from .base import AudioTransform
 
 __all__ = ["STFT", "RealtimeSTFT"]
 
-_UNPORTED_MODES = {"sinebank": "Queue 1 item 8 (needs ops/interp.py)"}
-#: streaming modes whose carried state comes with a later slice
-_UNPORTED_STREAM_MODES = {
-    "sinebank": "Queue 1 item 9b(ii) (sinebank_stream)",
-}
 #: streaming modes that carry the RT-PGHI frame history
 _PGHI_STREAM_MODES = ("pghi", "pghi_exact", "pghi_gl")
+_TWO_PI = 2.0 * math.pi
+
+
+def linspace32(stop: float, num: int, device=None) -> torch.Tensor:
+    """``jnp.linspace(0.0, stop, num)`` in float32, bit for bit: ``i * (stop
+    * (1 / (num - 1)))`` for ``i < num - 1``, each factor rounded to float32
+    (XLA folds the constants of ``stop * (i / (num - 1))`` into one), and
+    ``stop`` itself last.  ``torch.linspace`` fills its second half from the
+    end and rounds otherwise."""
+    stop32 = np.float32(stop)
+    if num == 1:
+        return torch.zeros((1,), dtype=torch.float32, device=device)
+    scale = stop32 * (np.float32(1.0) / np.float32(num - 1))
+    out = np.concatenate([np.arange(num - 1, dtype=np.float32) * scale, np.array([stop32], np.float32)])
+    return torch.as_tensor(out, device=device)
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors rounded once, as a fused multiply-add
+    rounds it: the offline sinebank's oscillator angles are built so, as XLA
+    contracts the JAX package's ``a * b + c`` in its compiled loop body into
+    one FMA.  The float64 product of two float32 values is exact."""
+    return (a.double() * b.double() + c.double()).float()
 
 
 class STFT(AudioTransform):
     """Offline STFT with phaseless inversion.
 
-    Inversion modes: ``griffin_lim`` (default), ``keep_input``, ``random``
-    and the PGHI family (``pghi``, ``pghi_bidir``, ``pghi_exact``,
-    ``pghi_gl``); ``sinebank`` is a known name that raises
-    ``NotImplementedError`` for now.
+    Inversion modes: ``griffin_lim`` (default), ``keep_input``, ``random``,
+    ``sinebank`` and the PGHI family (``pghi``, ``pghi_bidir``,
+    ``pghi_exact``, ``pghi_gl``).
     """
 
     scriptable = True
@@ -216,7 +237,8 @@ class STFT(AudioTransform):
         """Audio from magnitudes ``(..., T, F)``.  ``generator`` drives every
         random draw of the mode (none given: one derived from ``seed`` and the
         number of draws so far); ``angles`` pins the PGHI modes' silent-bin
-        phases; ``phase`` is ``keep_input``'s explicit phase."""
+        phases and the sinebank's oscillator phases ``(F,)``; ``phase`` is
+        ``keep_input``'s explicit phase."""
         mode = self._resolve_mode(inversion_mode)
         if mode == "griffin_lim":
             return self.griffin_lim(mag, generator=generator, init_phase=init_phase)
@@ -247,11 +269,8 @@ class STFT(AudioTransform):
             if mode == "random" or phase is None:
                 phase = self._angles(mag, generator, None)
             return self.invert(torch.polar(mag, phase.to(mag.dtype)))
-        if mode in _UNPORTED_MODES:
-            raise NotImplementedError(
-                "STFT inversion mode %r is not ported yet (ROADMAP %s)"
-                % (mode, _UNPORTED_MODES[mode])
-            )
+        if mode == "sinebank":
+            return self.get_sinebank_inversion(mag, generator=generator, angles=angles)
         raise ValueError("inversion mode %s not valid." % mode)
 
     def _next_generator(self) -> torch.Generator:
@@ -308,6 +327,41 @@ class STFT(AudioTransform):
         ])
         return torch.as_tensor(out.reshape(m.shape), dtype=torch.float32, device=mag.device)
 
+    def get_sinebank_inversion(
+        self,
+        mag: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        angles: Optional[torch.Tensor] = None,
+        bin_block: int = 64,
+    ) -> torch.Tensor:
+        """Additive resynthesis: each bin's envelope, linearly upsampled to
+        the sample rate, modulates a sine at the bin's frequency with a random
+        phase (``angles (F,)``, or a draw from ``generator``).  The magnitudes
+        are divided by their largest value over the whole batch and so is the
+        result; ``hop * T + n_fft`` samples come out.  Bins are summed
+        ``bin_block`` at a time, so peak memory is ``O(block * L)``, not the
+        ``(F, L)`` envelope tensor at once.  The oscillator angle ``2 pi f t +
+        phi`` is built as the JAX package builds it, from the same float32
+        grids: at 4 s and 22 kHz it reaches 5.5e5 rad, where one float32 ulp
+        is 0.06 rad."""
+        T, n_bins = mag.shape[-2], mag.shape[-1]
+        dev = mag.device
+        freqs = linspace32(self.sr / 2.0, n_bins, dev)
+        phi = angles if angles is not None else random_angles(
+            (n_bins,), dev, generator or self._next_generator()
+        )
+        phi = phi.to(device=dev, dtype=torch.float32).reshape(n_bins)
+        magT = (mag / mag.abs().max()).transpose(-2, -1)  # (..., F, T)
+        final_length = self.hop_length * T + self.n_fft
+        t = linspace32(final_length / self.sr, final_length, dev)[None, :]
+        y = mag.new_zeros(mag.shape[:-2] + (final_length,))
+        for lo in range(0, n_bins, bin_block):
+            hi = min(lo + bin_block, n_bins)
+            env = interp_linear(magT[..., lo:hi, :], final_length).div_(_TWO_PI)
+            sines = torch.sin(fma32(_TWO_PI * freqs[lo:hi, None], t, phi[lo:hi, None]))  # (block, L)
+            y = y + env.mul_(sines).sum(-2)
+        return y / y.abs().max()
+
     # --------------------------------------------------- phase side-channel
     def _stash_phase(self, spec: torch.Tensor) -> None:
         """``keep_input`` support: remember the phase of the last forward."""
@@ -346,12 +400,11 @@ class STFT(AudioTransform):
 
     # ------------------------------------------------------------- test hooks
     def test_inversion(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The complex inversion and each ported phaseless mode."""
+        """The complex inversion and every phaseless mode."""
         spec = self.forward(x)
         outs = {"direct": self.invert(spec)}
         for mode in self.get_inversion_modes():
-            if mode not in _UNPORTED_MODES:
-                outs[mode] = self.invert(spec.abs(), inversion_mode=mode)
+            outs[mode] = self.invert(spec.abs(), inversion_mode=mode)
         return outs
 
     def realtime(self) -> "RealtimeSTFT":
@@ -385,7 +438,9 @@ class RealtimeSTFT(STFT):
     ``pghi`` carries the RT-PGHI frame history (``mag_buffer (..., 2, F)``,
     ``phase_buffer (..., F)``), ``pghi_gl`` that and the pinned context
     (``gl_mag`` / ``gl_phase (..., gl_context, F)``, with lookahead the pending
-    magnitudes ``la_mag (..., lookahead_frames, F)``).  The eager ``invert``
+    magnitudes ``la_mag (..., lookahead_frames, F)``), ``sinebank`` its
+    oscillators' ``time_index`` (a float32 scalar whatever the batch) and
+    ``random_phase (..., 1, F)``.  The eager ``invert``
     keeps the state on ``self``, and its ``keep_input`` / ``random`` calls
     keep the PGHI history too, so a later eager switch to ``pghi`` starts from
     real context.  ``gl_iterations`` (16), ``gl_context`` (``overlap - 1``)
@@ -439,28 +494,28 @@ class RealtimeSTFT(STFT):
     def get_inversion_modes() -> List[str]:
         return ["keep_input", "random", "sinebank", "pghi", "pghi_gl"]
 
-    def _refuse_unported(self, mode: Optional[str]) -> None:
-        if mode in _UNPORTED_STREAM_MODES:
-            raise NotImplementedError(
-                "streaming inversion mode %r of %s is not ported yet (ROADMAP %s)"
-                % (mode, type(self).__name__, _UNPORTED_STREAM_MODES[mode])
-            )
-
     # ------------------------------------------------------------- streaming
-    def init_state(self, batch_shape: Tuple[int, ...] = (), mode: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    def init_state(self, batch_shape: Tuple[int, ...] = (), mode: Optional[str] = None,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """Fresh streaming-inversion state: mode-minimal, so the complex,
         ``keep_input`` and ``random`` inversions get an empty dict,
         ``pghi`` / ``pghi_exact`` the RT-PGHI frame history (2 magnitude
-        frames, 1 phase frame, zeros) and ``pghi_gl`` that history, the
+        frames, 1 phase frame, zeros), ``pghi_gl`` that history, the
         ``gl_context`` pinned frames' magnitudes and phases and, with
-        lookahead, the ``lookahead_frames`` pending magnitudes.  ``mode=None``
-        resolves to the configured ``inversion_mode``; the modes whose carry
-        belongs to a later slice raise."""
+        lookahead, the ``lookahead_frames`` pending magnitudes, and
+        ``sinebank`` ``time_index`` (0) and ``random_phase (..., 1, F)`` drawn
+        from ``generator`` (none: one derived from ``seed``).  ``mode=None``
+        resolves to the configured ``inversion_mode``."""
         mode = self._resolve_mode(mode)
-        self._refuse_unported(mode)
+        bs = tuple(batch_shape)
+        if mode == "sinebank":
+            return {
+                "time_index": torch.zeros((), device=self.device),
+                "random_phase": random_angles(bs + (1, self.n_bins), self.device,
+                                              generator or self._next_generator()),
+            }
         if mode not in _PGHI_STREAM_MODES:
             return {}
-        bs = tuple(batch_shape)
 
         def zeros(rows=None):
             return torch.zeros(bs + (() if rows is None else (rows,)) + (self.n_bins,), device=self.device)
@@ -530,11 +585,13 @@ class RealtimeSTFT(STFT):
         """Frames ``(..., T, n_fft)`` from magnitudes ``(..., T, F)``:
         ``keep_input`` takes ``phase`` or the last forward's, ``random``
         draws from ``generator`` (none: one derived from ``seed``), ``pghi``
-        / ``pghi_exact`` / ``pghi_gl`` run one streaming step from the state
-        kept on ``self`` (``angles`` pins the RT-PGHI seed's silent bins'
-        phases)."""
+        / ``pghi_exact`` / ``pghi_gl`` / ``sinebank`` run one streaming step from
+        the state kept on ``self`` (``angles`` pins the RT-PGHI seed's silent
+        bins' phases)."""
         mode = self._resolve_mode(inversion_mode)
-        self._refuse_unported(mode)
+        if mode == "sinebank":
+            self._state, y = self.sinebank_stream(self._eager_state(mag, mode="sinebank"), mag)
+            return y * self.inv_window
         if mode in _PGHI_STREAM_MODES:
             mode = "pghi_gl" if mode == "pghi_gl" else "pghi"
             state = self._eager_state(mag, mode=mode)
@@ -566,11 +623,13 @@ class RealtimeSTFT(STFT):
         -> (state, frames (..., T, n_fft))``.  ``pghi`` / ``pghi_exact`` run
         :meth:`pghi_stream` (``angles`` pins the silent bins' phases) and
         carry the history of the spectrum they build; ``pghi_gl`` runs
-        :meth:`pghi_gl_stream`."""
+        :meth:`pghi_gl_stream`, ``sinebank`` :meth:`sinebank_stream`."""
         if x.is_complex():
             return self._update_buffers(state, x), self.invert(x)
         mode = self._resolve_mode(inversion_mode)
-        self._refuse_unported(mode)
+        if mode == "sinebank":
+            state, y = self.sinebank_stream(state, x)
+            return state, y * self.inv_window
         if mode == "pghi_gl":
             return self.pghi_gl_stream(state, x, generator=generator, angles=angles)
         if mode in _PGHI_STREAM_MODES:
@@ -651,6 +710,47 @@ class RealtimeSTFT(STFT):
         new_state["gl_phase"] = torch.cat([state["gl_phase"], commit_ph], dim=-2)[..., -ctx:, :]
         return new_state, self.invert(spec)
 
+    def sinebank_stream(self, state: Dict[str, torch.Tensor], mag: torch.Tensor
+                        ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """Stateful sinebank resynthesis of one chunk: ``mag (..., T, F) ->
+        (state, frames (..., T, n_fft))``, before the synthesis window.  Bin
+        ``f`` of frame ``t`` is an oscillator of phase ``A = omega_f (t hop /
+        sr + time_index) + random_phase_f`` over the frame's samples ``n``; by
+        the angle-addition identity the ``(T, F, n_fft)`` broadcast becomes
+        two ``(T, F) x (F, n_fft)`` products at the port's float32 matmul
+        precision.  ``time_index`` then advances by ``T hop / sr`` in
+        float32, so the sines run on across chunks.  ``A`` is rounded after
+        each operation, as the JAX package's step computes it op by op."""
+        if "time_index" not in state:
+            raise KeyError(
+                "streaming state has no sinebank continuity: create it with "
+                "init_state(batch_shape, mode='sinebank') (states are mode-minimal)"
+            )
+        T = mag.shape[-2]
+        y = self.sinebank_frames(mag, state["time_index"], state["random_phase"])
+        new_state = dict(state)
+        new_state["time_index"] = state["time_index"] + T * self.hop_length / self.sr
+        return new_state, y
+
+    def sinebank_frames(self, mag: torch.Tensor, starts: torch.Tensor, random_phase: torch.Tensor
+                        ) -> torch.Tensor:
+        """The sinebank frames ``(..., T, n_fft)`` of ``mag (..., T, F)`` cut
+        into ``len(starts)`` equal chunks, chunk ``i`` starting at ``starts[i]``
+        seconds (a scalar: one chunk): frame ``t`` of a chunk sits at ``t hop /
+        sr`` past its start.  :meth:`sinebank_stream` runs one chunk, the
+        streaming closed form a whole session."""
+        T, n_bins = mag.shape[-2], mag.shape[-1]
+        dev = mag.device
+        starts = starts.reshape(-1, 1, 1)
+        omega = _TWO_PI * linspace32(self.sr / 2.0, n_bins, dev)  # rad/s
+        frame_t = torch.arange(T // starts.shape[0], dtype=torch.float32, device=dev)[:, None] * (
+            self.hop_length / self.sr)
+        A = omega[None, :] * (frame_t + starts).reshape(T, 1) + random_phase
+        n = torch.arange(self.n_fft, dtype=torch.float32, device=dev)[None, :] / self.sr
+        ang = omega[:, None] * n  # the in-frame oscillators, (F, n_fft)
+        C, S = torch.cos(ang), torch.sin(ang)
+        return (torch.matmul(mag * torch.sin(A), C) + torch.matmul(mag * torch.cos(A), S)) / n_bins
+
     def gl_frozen(self, T_out: int) -> Tuple[int, int]:
         """The grid rows ``[lo, hi)`` of a ``pghi_gl`` chunk of ``T_out``
         committed frames that keep the seed (the boundary freeze): the last
@@ -719,13 +819,12 @@ class RealtimeSTFT(STFT):
     def test_inversion(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The canonical streaming loop (OverlapAdd -> forward -> invert ->
         OverlapAdd.invert over chunks of ``4 n_fft``) for the complex
-        spectrum and each ported phaseless mode."""
+        spectrum and every phaseless mode."""
         from .oadd import OverlapAdd
 
         chunk = 4 * self.n_fft
         outs = {}
-        ported = [m for m in self.get_inversion_modes() if m not in _UNPORTED_STREAM_MODES]
-        for mode in [None] + ported:
+        for mode in [None] + self.get_inversion_modes():
             oadd = OverlapAdd(self.n_fft, self.hop_length, sr=self.sr, device=self.device)
             self.reset(x.shape[:-1], mode=mode or "random")
             pieces = []

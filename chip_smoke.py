@@ -29,7 +29,13 @@ the kernels, and (phase 4i) BASELINE configs 2 and 3: ``Mono() + MFCC(1024,
 against the eager chain and A against its plain version at that shape, and
 the raw and layout transforms (MidSide, Stereo, Window, MuLaw and its
 one-hot modes, OneHot, Transpose, Squeeze, Unsqueeze) on CUDA tensors
-against the same calls on the CPU.  The session encode (R, the magnitude encode), the full-K
+against the same calls on the CPU, and (phase 4j) the sinebank resynthesis:
+offline at the main path's B against the same call on the CPU, the
+streaming closed form (decode and roundtrip, the log-mel 3-chain and
+RealtimeDGT) against the generic chunk scan, with the measured dispatch
+regions' decisions at every phase's shapes (the main paths' required to
+take their kernels; phase 4h forces ``backend="kernel"`` where ``auto`` now
+runs the eager route).  The session encode (R, the magnitude encode), the full-K
 melspec front end (E, F), the full-K Griffin-Lim step (J) and the streaming
 roundtrips (L, M), K's synthesis, the full-K representation kernels (G,
 H), the Griffin-Lim step of cosine-sum windows (C, its chain D, the
@@ -1669,8 +1675,10 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     audio = mono[:16, None].expand(-1, 2, -1).contiguous()      # up to 16 stereo clips
     d_chain = T.Mono() + T.DGT(n_fft=768, hop_length=256) + T.Magnitude(mode="unipolar", contrast="log1p", mel=False)
     zero()
-    d_fit = att.fuse_fit(d_chain)(audio)
-    y_k = att.fuse_forward(d_fit)(audio)
+    # n_fft 768 lies outside the measured regions (regions.py): auto runs
+    # the eager route there, so the product and factored routes are forced
+    d_fit = att.fuse_fit(d_chain, backend="kernel")(audio)
+    y_k = att.fuse_forward(d_fit, backend="kernel")(audio)
     torch.cuda.synchronize()
     got = {k: v for k, v in sp.routes.items() if v}
     log(f"  DGT(768, 256) magnitude chain, fit + forward on {tuple(audio.shape)}: launches "
@@ -1693,8 +1701,8 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     b_chain = T.Mono() + T.STFT(n_fft=768, hop_length=192) + T.Magnitude(mode="unipolar", contrast="log1p",
                                                                         mel=True, n_fft=768)
     zero()
-    b_fit = att.fuse_fit(b_chain)(audio)
-    y_b = att.fuse_forward(b_fit)(audio)
+    b_fit = att.fuse_fit(b_chain, backend="kernel")(audio)
+    y_b = att.fuse_forward(b_fit, backend="kernel")(audio)
     torch.cuda.synchronize()
     got = {k: v for k, v in sp.routes.items() if v}
     log(f"  STFT(768, 192) log-mel chain, fit + forward on {tuple(audio.shape)}: launches "
@@ -1715,8 +1723,8 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     p_chain = T.Mono() + T.STFT(n_fft=768, hop_length=192) + T.Polar(
         magnitude_args={"mode": "bipolar", "n_fft": 768})
     zero()
-    p_fit = att.fuse_fit(p_chain)(audio)
-    y_p = att.fuse_forward(p_fit)(audio)
+    p_fit = att.fuse_fit(p_chain, backend="kernel")(audio)
+    y_p = att.fuse_forward(p_fit, backend="kernel")(audio)
     torch.cuda.synchronize()
     got = {k: v for k, v in sp.routes.items() if v}
     log(f"  STFT(768, 192) + Polar, fit + forward on {tuple(audio.shape)}: launches "
@@ -1783,8 +1791,8 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     r_chain = T.Mono() + T.DGT(n_fft=768, hop_length=256) + T.PolarIF(
         magnitude_args={"mode": "bipolar", "n_fft": 768})
     zero()
-    r_fit = att.fuse_fit(r_chain)(audio)
-    y_r = att.fuse_forward(r_fit)(audio)
+    r_fit = att.fuse_fit(r_chain, backend="kernel")(audio)
+    y_r = att.fuse_forward(r_fit, backend="kernel")(audio)
     torch.cuda.synchronize()
     got = {k: v for k, v in sp.routes.items() if v}
     log(f"  DGT(768, 256) + PolarIF, fit + forward on {tuple(audio.shape)}: launches "
@@ -1957,6 +1965,190 @@ def baseline_phase(dev, audio, mono, errs, counts):
     log(f"  layout transforms equal to the CPU's both ways: {lay_ok}; phase 4i {time.perf_counter() - t_start:.1f} s")
     require(all(lay_ok.values()), "config 2: a layout transform differs from the CPU's")
     return {"bank": mfcc.mel_bank, "taps": taps}
+
+
+def sinebank_regions_phase(dev, audio, mono, stream, wrappers):
+    """Phase 4j: the sinebank resynthesis, offline and streaming, and the
+    port's measured dispatch regions (``regions.py``).
+
+    * Offline: ``STFT(1024, 256).invert(|STFT(x)|, inversion_mode="sinebank")``
+      on phase 4's mono clips at the main path's B (torch ops, no kernel
+      launch), its time and peak memory; two clips against the same call on
+      the CPU with the same phases (relative L2 within 1e-4).
+    * Streaming on phase 4f's sessions: ``scan_invert`` of the encode's
+      magnitudes and ``scan_roundtrip`` on the 2-chain and the log-mel
+      3-chain, and ``RealtimeDGT``'s decode, each by the closed form under
+      ``auto`` (the roundtrips encode through R) against the generic chunk
+      scan with a generator seeded alike: relative L2 below 5e-3 (the JAX
+      package's bound, ``tests/test_streaming.py:1046``) and below 1e-5 (both
+      routes build the same angles; ``tests/test_torch_sinebank.py`` shows a
+      clock off by float32 rounding failing it); route times at B =
+      1, 8 and the session count beside the generic scan's.
+    * Regions: the table's decision at each phase's shapes, required to be
+      the kernel at the main paths' shapes (1024/256 log-mel, DGT, Polar,
+      PolarIF, MFCC, and the 64-session routes); the kernel / eager ratio at
+      the edges of each region and the batch caps, printed, not gated."""
+    import acids_transforms_tpu_torch as att
+    from acids_transforms_tpu_torch import regions, streaming
+    from acids_transforms_tpu_torch import transforms as T
+
+    t_start = time.perf_counter()
+    route, generic, sgen = stream["route"], stream["generic"], stream["sgen"]
+    B, F = mono.shape[0], N_FFT // 2 + 1
+    log(f"[4j] sinebank: offline STFT({N_FFT}, {HOP}) on {B} mono clips, the streaming closed form on "
+        f"{stream['sx'].shape[0]} sessions; the dispatch regions")
+
+    def zero():
+        for w in wrappers:
+            w.reset_launches()
+
+    def launched():
+        return sum(sum(w.launches.values()) for w in wrappers)
+
+    def rel_l2(a, b):
+        return (torch.linalg.norm(a.double() - b.double()) / torch.linalg.norm(b.double())).item()
+
+    # ---- offline
+    st = T.STFT(n_fft=N_FFT, hop_length=HOP)
+    mag = st(mono).abs()
+    phi = 2 * math.pi * torch.rand((F,), generator=sgen(170), device=dev)
+    st._phase_buffer = None     # the forward's stashed phase: not needed here
+    zero()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    y = st.invert(mag, inversion_mode="sinebank", angles=phi)
+    torch.cuda.synchronize()
+    off_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    n_l = launched()
+    ok = (tuple(y.shape) == (B, HOP * mag.shape[-2] + N_FFT) and torch.isfinite(y).all().item()
+          and abs(y.abs().max().item() - 1.0) < 1e-6)
+    del y
+    y2 = st.invert(mag[:2], inversion_mode="sinebank", angles=phi)
+    y2_p = T.STFT(n_fft=N_FFT, hop_length=HOP, device="cpu").invert(mag[:2].cpu(), inversion_mode="sinebank",
+                                                                     angles=phi.cpu())
+    e_off = rel_l2(y2.cpu(), y2_p)
+    log(f"  offline sinebank on {tuple(mag.shape)}: {off_ms:.1f} ms, peak {peak / 2 ** 30:.2f} GiB over "
+        f"what was allocated, launches {n_l}; two clips against the CPU: relative L2 {e_off:.3e} (tol 1e-04)")
+    require(ok and n_l == 0 and e_off <= 1e-4, "offline sinebank: bad output, a kernel launch or the CPU disagrees")
+    del mag, y2, y2_p
+    torch.cuda.empty_cache()
+
+    # ---- streaming: the closed form against the generic scan
+    sx, spec, CH = stream["sx"], stream["spec"], STREAM_CHUNK
+    T_C = CH // HOP
+    s_chain = T.OverlapAdd(N_FFT, HOP) + T.RealtimeSTFT(n_fft=N_FFT, hop_length=HOP, inversion_mode="sinebank")
+    f_chain = s_chain + T.Magnitude(mode=None, contrast="log1p", mel=True, n_fft=N_FFT)
+    d_chain = T.OverlapAdd(N_FFT, HOP) + T.RealtimeDGT(n_fft=N_FFT, hop_length=HOP, inversion_mode="sinebank")
+    mags = spec.abs()
+    feats, _ = streaming.scan_forward(f_chain, sx, CH, backend="generic")
+    cases = (
+        ("2-chain decode", lambda b: streaming.scan_invert(s_chain, mags, T_C, "sinebank", generator=sgen(171),
+                                                           backend=b), {}),
+        ("2-chain roundtrip", lambda b: streaming.scan_roundtrip(s_chain, sx, CH, "sinebank", generator=sgen(172),
+                                                                 backend=b), {"session_encode": 1}),
+        ("log-mel 3-chain roundtrip", lambda b: streaming.scan_roundtrip(f_chain, sx, CH, "sinebank",
+                                                                         generator=sgen(173), backend=b),
+         {"session_encode": 1}),
+        ("log-mel 3-chain decode", lambda b: streaming.scan_invert(f_chain, feats, T_C, "sinebank",
+                                                                   generator=sgen(174), backend=b), {}),
+        ("RealtimeDGT decode", lambda b: streaming.scan_invert(d_chain, mags, T_C, "sinebank", generator=sgen(175),
+                                                               backend=b), {}),
+    )
+    for name, fn, expect in cases:
+        y_c = route(f"sinebank {name}: closed form", lambda: fn("auto"), expect)
+        y_g = generic(f"sinebank {name} generic", lambda: fn("generic"))
+        e = rel_l2(y_c, y_g)
+        log(f"    closed form vs generic scan: relative L2 {e:.3e} (tol 5e-03, and 1e-05 for the same angles)")
+        require(y_c.shape == y_g.shape and torch.isfinite(y_c).all().item() and e < 5e-3 and e < 1e-5,
+                f"sinebank {name}: the closed form differs from the generic scan")
+    del feats
+    log("  sinebank route times (median of 3, host clock to the card's end): closed form / generic scan")
+    for b in sorted({1, 8, sx.shape[0]}):
+        xb, mb = sx[:b], mags[:b]
+        for name, fn in (
+            ("decode", lambda bk: streaming.scan_invert(s_chain, mb, T_C, "sinebank", generator=sgen(176), backend=bk)),
+            ("roundtrip", lambda bk: streaming.scan_roundtrip(s_chain, xb, CH, "sinebank", generator=sgen(177),
+                                                              backend=bk)),
+        ):
+            c_ms, g_ms = time_ms(lambda: fn("auto"), 3, 1), time_ms(lambda: fn("generic"), 3, 1)
+            log(f"    B={b:3d} sinebank {name:9s}: {c_ms:9.3f} ms / {g_ms:9.3f} ms ({g_ms / c_ms:.2f}x)")
+    del mags
+    torch.cuda.empty_cache()
+
+    # ---- the regions
+    table = regions.table()
+    log("  dispatch regions (regions.py, measured by tools/sweep_regions.py): " + json.dumps(
+        {k: table["streaming"][k] for k in ("angle_cap_bytes", "sinebank_cap_bytes", "batch_caps")}))
+    shapes = [("4 log-mel", "melspec", 1024, 256, True), ("4b DGT", "melspec", 1024, 256, False),
+              ("4c DGT + PolarIF", "if", 1024, 256, False), ("4d STFT + Polar", "phase", 1024, 256, True),
+              ("4i MFCC", "mfcc", 1024, 256, True), ("4h STFT(768, 192) log-mel", "melspec", 768, 192, True),
+              ("4h STFT(768, 192) + Polar", "phase", 768, 192, True), ("4h DGT(768, 256)", "melspec", 768, 256, False),
+              ("4h DGT(768, 256) + PolarIF", "if", 768, 256, False)]
+    main_ok = True
+    for label, kind, n_fft, hop, taps in shapes:
+        if kind == "melspec":
+            inside = regions.melspec_region_ok(n_fft, hop, taps)
+        elif kind == "mfcc":
+            inside = regions.mfcc_region_ok(n_fft, hop)
+        else:
+            inside = regions.repr_region_ok(n_fft, hop, taps, kind)
+        fit_inside = taps or regions.fit_fullk_region_ok(n_fft)
+        log(f"    phase {label} {n_fft}/{hop}: auto forward -> {'kernel' if inside else 'eager'}"
+            + ("" if kind == "mfcc" else f", fit -> {'kernel' if fit_inside else 'chain.fit'}"))
+        if n_fft == N_FFT:
+            main_ok = main_ok and inside and fit_inside
+    SB = sx.shape[0]
+    three = s_chain + T.Magnitude(mode="unipolar", contrast="log1p", mel=False, n_fft=N_FFT)
+    plans = {
+        "encode": streaming.plan_forward(stream["chain"], (SB, sx.shape[-1]), CH),
+        "complex roundtrip": streaming.plan_roundtrip(stream["chain"], (SB, sx.shape[-1]), CH),
+        "complex decode": streaming.plan_invert(stream["chain"], tuple(spec.shape), T_C, y_is_complex=True),
+        "sinebank roundtrip": streaming.plan_roundtrip(s_chain, (SB, sx.shape[-1]), CH, "sinebank"),
+    }
+    for mode in ("random", "pghi", "pghi_gl"):
+        plans[f"{mode} roundtrip"] = streaming.plan_roundtrip(stream["chain"], (SB, sx.shape[-1]), CH, mode)
+        plans[f"{mode} decode"] = streaming.plan_invert(stream["chain"], (SB, stream["n_frames"], F), T_C, mode)
+        plans[f"{mode} 3-chain roundtrip"] = streaming.plan_roundtrip(three, (SB, sx.shape[-1]), CH, mode)
+    want = {k: ("fused" if k == "encode" else "complex" if k.startswith("complex") else k.split()[0])
+            for k in plans}
+    log(f"    phases 4f / 4g, {SB} sessions: " + ", ".join(f"{k} -> {v}" for k, v in plans.items()))
+    require(main_ok and plans == want, "regions: a main path's shape does not resolve to its kernel under auto")
+    # the kernel / eager ratio at each region's edges (not gated)
+    clips = audio[:32]
+    edges = []
+    for kind, key in (("melspec_taps", ("melspec_taps",)), ("melspec_fullk", ("melspec_fullk",)),
+                      ("mfcc", ("mfcc",))):
+        r = table["fuse_forward"][key[0]]
+        if r is None:
+            continue
+        pts = {r["n_fft_min"], r["n_fft_max"]}
+        if r["n_fft_min"] > 64:
+            pts.add(r["n_fft_min"] // 2)
+        if r["n_fft_max"] < 4096:
+            pts.add(2 * r["n_fft_max"])
+        if r["fft_route_only"]:
+            pts.add(768)
+        for n_fft in sorted(pts):
+            hop = 32 if n_fft == 64 else n_fft // 4   # the kernels' hop is a multiple of 32
+            if kind == "mfcc":
+                chain = T.Mono() + T.MFCC(n_fft=n_fft, hop_length=hop)
+            else:
+                front = T.STFT(n_fft=n_fft, hop_length=hop) if kind.endswith("taps") else T.DGT(n_fft=n_fft,
+                                                                                             hop_length=hop)
+                chain = T.Mono() + front + T.Magnitude(mode="unipolar", contrast="log1p",
+                                                       mel=kind.endswith("taps"), n_fft=n_fft)
+            k_ms = device_ms(lambda: att.fuse_forward(chain, backend="kernel")(clips), 3, 1)
+            e_ms = device_ms(lambda: att.fuse_forward(chain, backend="eager")(clips), 3, 1)
+            edges.append(f"{kind} {n_fft}/{hop} {k_ms / e_ms:.2f}x")
+    zero()
+    for mode, cap in table["streaming"]["batch_caps"].items():
+        if cap is not None:
+            edges.append(f"batch cap {mode} = {cap} (ratios in dispatch_regions.json)")
+    log("    kernel / eager at the regions' edges (32 stereo clips; not gated): " + "; ".join(edges))
+    log(f"  phase 4j {time.perf_counter() - t_start:.1f} s")
 
 
 def sweep_phase(args, dev, mono, bank, off, scl, taps, kernels, bound_of, wrappers):
@@ -3455,6 +3647,8 @@ def main() -> int:
     structure_phase(dev, mono, stream, (spectral, glstep, pghi_kernel, ss), errs, counts)
     # ------------------------------------------ 4i. BASELINE configs 2 and 3
     base = baseline_phase(dev, audio, mono, errs, counts)
+    # ---------------------- 4j. sinebank, offline and streaming; the regions
+    sinebank_regions_phase(dev, audio, mono, stream, (spectral, glstep, pghi_kernel, ss))
 
     # ------------------------------------------------------------ 5. times
     log("[5] kernel times at the main-path shape (CUDA events around runs of "

@@ -153,13 +153,29 @@ def test_invert_random_and_keep_input(path):
 
 
 def test_sinebank_and_realtime_still_raise(path):
-    _, _, pc, y = path
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pc.invert(torch.as_tensor(y), inversion_mode="sinebank")
+    """The DGT inherits ``sinebank``: through the chain, and on the DGT child
+    with the JAX package's phases against its ``get_sinebank_inversion``
+    (1e-3 relative L2); its ``realtime()`` twin streams it eagerly, the JAX
+    transform's drawn phases carried over (1e-4, the clock bit-equal)."""
+    _, jf, pc, y = path
+    out = pc.invert(torch.as_tensor(y), inversion_mode="sinebank")
+    assert tuple(out.shape) == tuple(jf.invert(jnp.asarray(y), inversion_mode="sinebank").shape) == (3, 1, HOP * 71 + N_FFT)
+    assert torch.isfinite(out).all()
+    mag = np.asarray(jf[2].invert(jnp.asarray(y)))
+    key = jax.random.PRNGKey(4)
+    yj = np.asarray(jf[1].get_sinebank_inversion(jnp.asarray(mag), key=key))
+    phi = jax_angles((-(-mag.shape[-1] // 64) * 64,), seed=4)[: mag.shape[-1]]
+    yp = t2n(pc[1].invert(torch.as_tensor(mag), inversion_mode="sinebank", angles=torch.as_tensor(phi)))
+    assert np.linalg.norm(yp - yj) / np.linalg.norm(yj) <= 1e-3
     rt = pc[1].realtime()
     assert isinstance(rt, PT.RealtimeDGT) and rt.inversion_mode == pc[1].inversion_mode
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.invert(torch.as_tensor(y).abs()[..., :8, :], inversion_mode="sinebank")
+    jrt = jf[1].realtime()
+    m8 = mag[..., :8, :]
+    fj = np.asarray(jrt.invert(jnp.asarray(m8), inversion_mode="sinebank"))
+    rt._state = {"time_index": torch.zeros(()), "random_phase": torch.as_tensor(np.asarray(jrt._state["random_phase"]))}
+    fp = t2n(rt.invert(torch.as_tensor(m8), inversion_mode="sinebank"))
+    assert fp.shape == fj.shape == (3, 8, N_FFT) and rel(fp, fj) <= 1e-4
+    assert np.asarray(jrt._state["time_index"]).tobytes() == t2n(rt._state["time_index"]).tobytes()
 
 
 def test_stft_hann_pghi_through_window_gamma():

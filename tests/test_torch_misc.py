@@ -319,7 +319,7 @@ def test_hooks_of_the_drawing_classes(audio, name):
         assert tuple(op["inverted"].shape) == (2, 1000)
         return
     ported = set(op)
-    assert ported == {"direct"} | (set(pt.get_inversion_modes()) - {"sinebank"})
+    assert ported == {"direct"} | set(pt.get_inversion_modes())
     for k, v in op.items():
         assert torch.isfinite(v).all() and v.shape[:-1] == (2,), k
     if name.startswith("Realtime"):

@@ -268,7 +268,7 @@ def test_dispatch_of_the_pghi_and_complex_sessions():
     and ``fused`` take the RT-PGHI and complex-decode sessions; on a CPU one
     ``auto`` runs the chunk scan; ``pghi_exact`` streams through the scan as
     in the JAX package; ``pghi_gl`` takes its own session (O) and
-    ``sinebank`` still raises naming ROADMAP."""
+    ``sinebank`` its closed form."""
     _, pc = chains(N_FFT, HOP, "dgt", mode="pghi")
     three = pc + PT.Magnitude(device="cpu", n_fft=N_FFT)
     shape, yshape = (4, 4096), (4, 40, F)
@@ -282,8 +282,7 @@ def test_dispatch_of_the_pghi_and_complex_sessions():
         assert PS.plan_invert(pc, yshape, T_C, None, y_is_complex=True, device=dev) == ("complex" if card else "generic")
         assert PS.plan_invert(three, yshape, T_C, None, y_is_complex=True, device=dev) == "generic"
         assert PS.plan_roundtrip(pc, shape, CHUNK, "pghi_gl", backend="fused", device=dev) == "pghi_gl"
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
-            PS.plan_roundtrip(pc, shape, CHUNK, "sinebank", backend="fused", device=dev)
+        assert PS.plan_roundtrip(pc, shape, CHUNK, "sinebank", backend="fused", device=dev) == "sinebank"
     # JAX's own plans agree on which session covers each call
     jc = JT.OverlapAdd(N_FFT, HOP) + JT.RealtimeDGT(n_fft=N_FFT, hop_length=HOP)
     assert JS.plan_roundtrip(jc, shape, CHUNK, "pghi", backend="fused") == "pghi"

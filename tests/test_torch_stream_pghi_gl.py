@@ -210,7 +210,7 @@ def test_dispatch_of_the_pghi_gl_sessions():
     plan reads the device type), its gates refuse a lookahead or a context
     longer than the chunk and an empty context, ``backend="fused"`` on the
     CPU runs the plain session without counting a launch, and ``sinebank``
-    still raises naming its item."""
+    takes its closed form."""
     _, pc = gl_chains("dgt")
     three = pc + PT.Magnitude(device="cpu", n_fft=N_FFT)
     shape, yshape = (4, 4096), (4, 40, F)
@@ -220,8 +220,7 @@ def test_dispatch_of_the_pghi_gl_sessions():
             assert PS.plan_roundtrip(chain, shape, CHUNK, "pghi_gl", device=dev) == ("pghi_gl" if card else "generic")
             assert PS.plan_roundtrip(chain, shape, CHUNK, "pghi_gl", backend="fused", device=dev) == "pghi_gl"
             assert PS.plan_invert(chain, yshape, T_C, "pghi_gl", device=dev) == ("pghi_gl" if card else "generic")
-        with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 9b\(ii\)"):
-            PS.plan_roundtrip(pc, shape, CHUNK, "sinebank", backend="fused", device=dev)
+        assert PS.plan_roundtrip(pc, shape, CHUNK, "sinebank", backend="fused", device=dev) == "sinebank"
     for la, ctx, ok in ((T_C, None, True), (T_C + 1, None, False), (0, T_C, True), (0, T_C + 1, False),
                         (0, 0, False)):
         _, c = gl_chains("stft", la, ctx)

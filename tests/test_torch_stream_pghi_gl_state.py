@@ -117,7 +117,7 @@ def test_test_inversion_covers_pghi_gl():
     x = torch.as_tensor(tones(2 * 4 * N_FFT, [(220, 440)]))
     outs = rt.test_inversion(x)
     jt = JT.RealtimeSTFT(n_fft=N_FFT, hop_length=HOP)
-    assert set(outs) == {"direct"} | (set(jt.get_inversion_modes()) - {"sinebank"})
+    assert set(outs) == {"direct"} | set(jt.get_inversion_modes())
     assert all(v.shape == x.shape and torch.isfinite(v).all() for v in outs.values())
     # the polish reconstructs the low tone no worse than the seed alone
     d = N_FFT - HOP

@@ -128,9 +128,12 @@ def test_init_state_shapes_per_mode():
     js, ps = jc[1].init_state((3,), mode="pghi_gl"), pc[1].init_state((3,), mode="pghi_gl")
     assert {k: tuple(v.shape) for k, v in ps.items()} == {k: v.shape for k, v in js.items()}
     assert set(ps) == {"mag_buffer", "phase_buffer", "gl_mag", "gl_phase"}
-    assert jc[1].init_state((3,), mode="sinebank")  # the JAX package allocates this carry
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
-        pc[1].init_state((3,), mode="sinebank")
+    # sinebank: the oscillators' clock (one scalar) and phases, as in the JAX package
+    js = jc[1].init_state((3,), mode="sinebank")
+    ps = pc[1].init_state((3,), mode="sinebank", generator=torch.Generator().manual_seed(1))
+    assert {k: tuple(v.shape) for k, v in ps.items()} == {k: v.shape for k, v in js.items()}
+    assert {k: tuple(v.shape) for k, v in ps.items()} == {"time_index": (), "random_phase": (3, 1, 257)}
+    assert ps["time_index"] == 0 and 0 <= ps["random_phase"].min() and ps["random_phase"].max() < 2 * np.pi
     # the DGT's default mode is pghi: it streams
     st = PT.RealtimeDGT(n_fft=512, hop_length=128, device="cpu").init_state((1,))
     assert {k: tuple(v.shape) for k, v in st.items()} == {"mag_buffer": (1, 2, 257), "phase_buffer": (1, 257)}
@@ -226,7 +229,7 @@ def test_streaming_unity_gain_after_the_delay(kind):
     snr = 10 * np.log10(np.sum(x[:n] ** 2) / np.sum(err ** 2))
     assert snr > 60, snr
     outs = pc[1].test_inversion(torch.as_tensor(x))
-    phaseless = {"keep_input", "random", "pghi", "pghi_gl"} | ({"pghi_exact"} if kind == "dgt" else set())
+    phaseless = {"keep_input", "random", "pghi", "pghi_gl", "sinebank"} | ({"pghi_exact"} if kind == "dgt" else set())
     assert set(outs) == {"direct"} | phaseless
     assert all(outs[m].shape == outs["direct"].shape and torch.isfinite(outs[m]).all() for m in phaseless)
     assert rel(t2n(outs["direct"])[d: d + n], x[:n]) <= 1e-4
@@ -270,9 +273,8 @@ def test_load_jax_state_takes_streaming_chains():
 def test_dispatch_contract():
     """The port's rule: ``auto`` takes a session kernel on a CUDA tensor and
     the generic scan on a CPU one; ``fused`` takes the session on either
-    device or raises ValueError; sessions whose kernel is not ported raise
-    NotImplementedError naming ROADMAP on the card; ``generic`` forces the
-    scan."""
+    device or raises ValueError; the sinebank's closed form (torch ops) is
+    taken on either device; ``generic`` forces the scan."""
     _, pc = chains(512, 128)
     three = pc + PT.Magnitude(device="cpu", n_fft=512)
     shape = (4, 4096)
@@ -311,19 +313,14 @@ def test_dispatch_contract():
         assert PS.plan_roundtrip(pc, shape, CHUNK, "pghi_gl", device=dev) == ("pghi_gl" if card else "generic")
         assert PS.plan_invert(pc, (4, 40, 257), 8, "pghi_gl", device=dev) == ("pghi_gl" if card else "generic")
         assert PS.plan_roundtrip(pc, shape, CHUNK, "pghi_gl", backend="generic", device=dev) == "generic"
-        # not ported yet: the card raises, the CPU runs the chunk scan under auto
+        # the sinebank's closed form: torch ops, taken under auto on either device
         for call in (
             lambda b: PS.plan_roundtrip(pc, shape, CHUNK, "sinebank", backend=b, device=dev),
             lambda b: PS.plan_invert(pc, (4, 40, 257), 8, "sinebank", backend=b, device=dev),
         ):
             assert call("generic") == "generic"
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
-                call("fused")
-            if card:
-                with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
-                    call("auto")
-            else:
-                assert call("auto") == "generic"
+            assert call("fused") == "sinebank"
+            assert call("auto") == "sinebank"
     assert PS.plan_forward(pc, shape, CHUNK) == "fused"  # device=None means the card
     for name, call in (("scan_roundtrip", PS.plan_roundtrip), ("scan_forward", PS.plan_forward)):
         with pytest.raises(ValueError, match="unknown %s backend" % name):
@@ -339,14 +336,22 @@ def test_dispatch_contract():
 
 
 def test_unported_streaming_modes_raise_naming_roadmap():
+    """``sinebank`` streams now: the eager step carries its clock on the
+    transform, a state without the carry raises ``KeyError``, and the
+    generic scan agrees with the closed form ``auto`` takes on the CPU."""
     _, pc = chains(512, 128)
     mag = torch.rand(2, 8, 257)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
-        pc[1].invert(mag, inversion_mode="sinebank")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9b"):
+    y0 = pc[1].invert(mag, inversion_mode="sinebank")
+    assert y0.shape == (2, 8, 512) and torch.isfinite(y0).all()
+    assert pc[1]._state["time_index"] == torch.tensor(8 * 128 / 44100, dtype=torch.float32)
+    with pytest.raises(KeyError, match="sinebank"):
         pc[1].step_invert({}, mag, inversion_mode="sinebank")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PS.scan_roundtrip(pc, torch.as_tensor(signal(9)), CHUNK, "sinebank", backend="generic")
+    x = torch.as_tensor(signal(9))
+    y_g = PS.scan_roundtrip(pc, x, CHUNK, "sinebank", generator=torch.Generator().manual_seed(3), backend="generic")
+    y_c = PS.scan_roundtrip(pc, x, CHUNK, "sinebank", generator=torch.Generator().manual_seed(3))
+    assert y_g.shape == y_c.shape == (2, 4 * CHUNK)
+    e = (torch.linalg.norm(y_c - y_g) / torch.linalg.norm(y_g)).item()
+    assert e < 5e-3 and e < 1e-5   # JAX's bound, and the same angles' rounding
     # pghi_gl streams now (tests/test_torch_stream_pghi_gl.py)
     assert pc[1].invert(mag, inversion_mode="pghi_gl").shape == (2, 8, 512)
 
