@@ -9,12 +9,20 @@ hand-written CUDA kernels for Hopper under ``csrc/``.  The port is built slice
 by slice; what is not ported yet raises ``NotImplementedError`` naming its
 ROADMAP item.
 
+The deployment surface: ``serving.CompiledTransform`` (the bucketed server),
+``serving.StreamingSession`` (the live chunk-by-chunk session),
+``export.save_transform`` / ``load_transform`` (npz checkpoints in the JAX
+package's format) and ``export.export_program`` / ``load_program``
+(``torch.export``, with kernel A as a registered operator).
+
 Everything runs on a CUDA device unless the caller passes ``device="cpu"``:
 constructors take ``device=None`` meaning ``"cuda"`` and raise without a card.
 """
-from . import convert, fuse, ops, regions, streaming, transforms
+from . import convert, export, fuse, ops, regions, serving, streaming, transforms, utils
 from ._device import resolve_device
+from .export import export_program, invert_with_phase_fn, load_program, load_transform, save_transform
 from .fuse import fuse_fit, fuse_forward
+from .serving import CompiledTransform, StreamingSession
 from .streaming import chunk_signal, scan_forward, scan_invert, scan_roundtrip
 from .transforms import *  # noqa: F401,F403
 from .transforms import __all__ as _transforms_all
@@ -27,6 +35,16 @@ __all__ = [
     "convert",
     "regions",
     "streaming",
+    "serving",
+    "export",
+    "utils",
+    "CompiledTransform",
+    "StreamingSession",
+    "save_transform",
+    "load_transform",
+    "export_program",
+    "load_program",
+    "invert_with_phase_fn",
     "fuse_forward",
     "fuse_fit",
     "chunk_signal",

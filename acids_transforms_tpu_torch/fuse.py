@@ -53,8 +53,8 @@ from typing import Callable, Optional
 import torch
 
 from .ops.cuda.spectral import (
-    fused_melspec,
     fused_melspec_available,
+    fused_melspec_op,
     fused_melspec_stats,
     fused_repr_stats,
     fused_spectral_repr,
@@ -209,7 +209,7 @@ def _kernel_fused(mono: Optional[Mono], stft_t: STFT, mag_t: Magnitude, out_dtyp
             x = mono.forward(_from_pcm_for_mono(mono, x))
         batch_shape = x.shape[:-1]
         offset, scale = _norm_affine(mag_t.norm)
-        y = fused_melspec(
+        y = fused_melspec_op(
             x.reshape((-1, x.shape[-1])),
             stft_t.n_fft,
             stft_t.hop_length,
@@ -320,7 +320,7 @@ def _kernel_fused_mfcc(mono: Optional[Mono], mfcc: MFCC, out_dtype):
         if mono is not None:
             x = mono.forward(_from_pcm_for_mono(mono, x))
         batch_shape = x.shape[:-1]
-        mel = fused_melspec(
+        mel = fused_melspec_op(
             x.reshape((-1, x.shape[-1])), mfcc.n_fft, mfcc.hop_length, mfcc.mel_bank, 0.0, 1.0,
             "none", taps=taps, power=mfcc.power, window=mfcc.window,
         )

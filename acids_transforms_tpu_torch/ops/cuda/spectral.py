@@ -43,12 +43,19 @@ the factored front end elsewhere: A, B, G and H share one rule
 ``melspec_forward_stage`` runs the factored forward cut after one of its
 stages (``STAGES``) on prepared rows: the kernel of the floor sweep
 (``tools/sweep_kernel_floor.py``), which attributes A's time to its stages.
+
+``fused_melspec`` is also registered as the operator
+``torch.ops.acids_transforms_tpu_torch.fused_melspec`` (:func:`fused_melspec_op`
+calls it): its CUDA implementation launches the kernel, its CPU
+implementation is the plain version and its fake implementation gives the
+output's shape, so that ``torch.export`` keeps the kernel in a program as one
+node (``export.py``).  ``op_calls`` counts the operator's launches.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,6 +87,7 @@ __all__ = [
     "fused_melspec_stats",
     "fused_melspec_stats_reference",
     "fused_melspec_available",
+    "fused_melspec_op",
     "fused_spectral_repr",
     "fused_spectral_repr_reference",
     "fused_repr_stats",
@@ -89,6 +97,7 @@ __all__ = [
     "STAGES",
     "launches",
     "routes",
+    "op_calls",
     "reset_launches",
 ]
 
@@ -122,8 +131,13 @@ routes: Dict[str, int] = {
 SECONDS = {"phase": 0, "if": 1, "imag": 2}
 
 
+#: launches of kernel A made through the registered operator (each also
+#: counts in ``launches`` and ``routes``)
+op_calls: Dict[str, int] = {"fused_melspec": 0}
+
+
 def reset_launches() -> None:
-    for d in (launches, routes):
+    for d in (launches, routes, op_calls):
         for k in d:
             d[k] = 0
 
@@ -592,6 +606,64 @@ def fused_melspec(
     _build.check(code, name)
     _count(name, taps, teams)
     return out
+
+
+@torch.library.custom_op("acids_transforms_tpu_torch::fused_melspec", mutates_args=(), device_types="cuda")
+def _fused_melspec_cuda(
+    x: torch.Tensor, n_fft: int, hop_length: int, mel_bank: Optional[torch.Tensor], offset: torch.Tensor,
+    scale: torch.Tensor, contrast: str, center: bool, taps: Optional[List[float]], power: float,
+    out_dtype: torch.dtype, window: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """The operator on a CUDA tensor: one launch of the kernel."""
+    y = fused_melspec(x, n_fft, hop_length, mel_bank, offset, scale, contrast, center,
+                      None if taps is None else tuple(taps), power, out_dtype, window)
+    op_calls["fused_melspec"] += 1
+    return y
+
+
+@_fused_melspec_cuda.register_kernel("cpu")
+def _fused_melspec_cpu(x, n_fft, hop_length, mel_bank, offset, scale, contrast, center, taps, power, out_dtype,
+                       window):
+    return fused_melspec_reference(x, n_fft, hop_length, mel_bank, offset, scale, contrast, center,
+                                   None if taps is None else tuple(taps), power, out_dtype, window)
+
+
+@_fused_melspec_cuda.register_fake
+def _fused_melspec_fake(x, n_fft, hop_length, mel_bank, offset, scale, contrast, center, taps, power, out_dtype,
+                        window):
+    L = x.shape[-1]
+    T = 1 + L // hop_length if center else (L - n_fft) // hop_length + 1
+    M = n_fft // 2 + 1 if mel_bank is None else mel_bank.shape[1]
+    return x.new_empty(tuple(x.shape[:-1]) + (T, M), dtype=out_dtype)
+
+
+def fused_melspec_op(
+    x: torch.Tensor,
+    n_fft: int,
+    hop_length: int,
+    mel_bank: Optional[torch.Tensor] = None,
+    offset=0.0,
+    scale=1.0,
+    contrast: str = "log1p",
+    center: bool = True,
+    taps: Optional[tuple] = None,
+    power: float = 1.0,
+    out_dtype: torch.dtype = torch.float32,
+    window: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`fused_melspec` (same arguments) through the registered operator
+    ``torch.ops.acids_transforms_tpu_torch.fused_melspec``: the kernel on a
+    CUDA tensor, the plain version on a CPU tensor, and one node of the graph
+    under ``torch.export``.  Float ``offset`` / ``scale`` become 0-d tensors
+    on ``x``'s device, filled there (no host copy); a tensor is passed as it
+    is (no host read)."""
+    def as_t(v):
+        return v if isinstance(v, torch.Tensor) else x.new_full((), float(v), dtype=torch.float32)
+
+    return torch.ops.acids_transforms_tpu_torch.fused_melspec(
+        x, n_fft, hop_length, mel_bank, as_t(offset), as_t(scale), contrast, center,
+        None if taps is None else [float(t) for t in taps], power, out_dtype, window,
+    )
 
 
 def _count(name: str, taps, teams: int) -> None:

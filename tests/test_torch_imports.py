@@ -32,6 +32,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import acids_transforms_tpu_torch.streaming, acids_transforms_tpu_torch.transforms.oadd\n"
         "import acids_transforms_tpu_torch.ops.cuda.stream_step\n"
         "import acids_transforms_tpu_torch.tools.sweep_kernel_floor\n"
+        "import acids_transforms_tpu_torch.serving, acids_transforms_tpu_torch.export\n"
+        "import acids_transforms_tpu_torch.utils, acids_transforms_tpu_torch.utils.bucketing\n"
+        "assert att.CompiledTransform is att.serving.CompiledTransform and att.load_program\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'jaxlib' or m.startswith('acids_transforms_tpu.') or m == 'acids_transforms_tpu']\n"
         "assert not bad, bad\n"
