@@ -11,7 +11,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device", "check_device", "same_device"]
+__all__ = ["resolve_device", "check_device", "same_device", "under_fake_tensors"]
 
 DeviceLike = Optional[Union[str, torch.device]]
 
@@ -29,6 +29,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def under_fake_tensors() -> bool:
+    """Whether a fake-tensor trace (a shape probe, ``torch.export``) is
+    running: no kernel may be launched there and no tensor cached."""
+    try:
+        return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
+    except AttributeError:  # a torch without the mode keys has no such trace either
+        return False
 
 
 def same_device(a: torch.device, b: torch.device) -> bool:

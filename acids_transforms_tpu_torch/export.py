@@ -33,7 +33,11 @@
 * ``invert_with_phase_fn``: the deployable ``(features, phase) -> audio``
   inverse of a spectral chain.
 
-Not ported yet (ROADMAP Queue 1 item 12): ``in_shardings=``.
+  ``in_shardings=`` exports a multi-device program: ``torch.export`` takes no
+  ``DTensor``, so the program is the per-shard one, exported at the local
+  batch, and the archive records the mesh axis, its size and the placements
+  (``sharding.json``).  :func:`load_program` then returns a callable that runs
+  it under ``parallel.shard_map_batch`` on any mesh with an axis of that size.
 """
 from __future__ import annotations
 
@@ -263,6 +267,9 @@ def load_transform(path: str, device=None) -> AudioTransform:
         return _decode_transform(manifest, data, dev)
 
 
+_SHARDING = "sharding.json"
+
+
 class _Program(torch.nn.Module):
     """A callable as a module for ``torch.export``.  The callable is kept out
     of the module's registry, so that the tensors it reads become the
@@ -292,9 +299,28 @@ def export_program(
     the raw-PCM ingest).  ``polymorphic_batch=True`` marks the leading axis
     of every argument as one dynamic dimension, so one program serves any
     batch size (sample-axis lengths stay static: bucket them with
-    ``utils/bucketing.py``)."""
+    ``utils/bucketing.py``).
+
+    ``in_shardings`` (a 1-D ``DeviceMesh``, or ``(mesh, axis_name)``) shards
+    the leading batch axis of every argument over the axis: the program is
+    exported at the local batch ``B / n`` and runs per shard once loaded
+    (cannot be combined with ``polymorphic_batch``)."""
+    extra = None
     if in_shardings is not None:
-        raise NotImplementedError("export_program(in_shardings=) is not ported yet (ROADMAP Queue 1 item 12)")
+        if polymorphic_batch:
+            raise ValueError("polymorphic_batch and in_shardings are exclusive")
+        mesh, axis = in_shardings if isinstance(in_shardings, tuple) else (
+            in_shardings, in_shardings.mesh_dim_names[0])
+        n = mesh.size(list(mesh.mesh_dim_names).index(axis))
+        B = example_args[0].shape[0]
+        if any(a.shape[0] != B for a in example_args) or B % n:
+            raise ValueError(
+                "export_program(in_shardings=): every argument needs the leading batch %d, "
+                "divisible by mesh axis %r size %d" % (B, axis, n)
+            )
+        example_args = [a.narrow(0, 0, B // n) for a in example_args]
+        extra = {_SHARDING: json.dumps({"axis": axis, "mesh_size": n, "batch": B,
+                                        "placements": ["Shard(0)"] * len(example_args)})}
     dynamic = None
     if polymorphic_batch:
         batch = torch.export.Dim("batch", min=1)
@@ -304,7 +330,7 @@ def export_program(
     # carry its whole storage along)
     program.example_inputs = None
     buf = io.BytesIO()
-    torch.export.save(program, buf)
+    torch.export.save(program, buf, extra_files=extra)
     blob = buf.getvalue()
     if path is not None:
         with open(path, "wb") as f:
@@ -312,13 +338,46 @@ def export_program(
     return blob
 
 
-def load_program(path_or_bytes) -> Callable:
+class ShardedProgram:
+    """A program exported with ``in_shardings``: called with global tensors
+    (or ``DTensor`` s sharded on dim 0), it runs the per-shard program on each
+    rank's batch slice under ``parallel.shard_map_batch`` and returns
+    ``DTensor`` s.  ``mesh=None`` builds a 1-D mesh over the process group at
+    the first call, on the device type of the first argument."""
+
+    def __init__(self, module: torch.nn.Module, sharding: dict, mesh=None):
+        self.module, self.sharding, self.mesh = module, sharding, mesh
+        self.graph = module.graph
+        self._call = None
+
+    def __call__(self, *args):
+        if self._call is None:
+            from .parallel import make_mesh, shard_map_batch
+
+            axis, n = self.sharding["axis"], self.sharding["mesh_size"]
+            if self.mesh is None:
+                self.mesh = make_mesh({axis: n}, device_type=args[0].device.type)
+            names = list(self.mesh.mesh_dim_names or ())
+            if axis not in names or self.mesh.size(names.index(axis)) != n:
+                raise ValueError(
+                    "the program was exported for a mesh axis %r of size %d; this mesh has %r"
+                    % (axis, n, dict(zip(names, self.mesh.mesh.shape)))
+                )
+            self._call = shard_map_batch(self.module, self.mesh, axis)
+        return self._call(*args)
+
+
+def load_program(path_or_bytes, mesh=None) -> Callable:
     """Load a program written by :func:`export_program` as a callable module
-    (its graph: ``.graph``)."""
+    (its graph: ``.graph``); a program exported with ``in_shardings`` comes
+    back as a :class:`ShardedProgram` over ``mesh``."""
+    extra = {_SHARDING: ""}
     if isinstance(path_or_bytes, (bytes, bytearray)):
-        program = torch.export.load(io.BytesIO(bytes(path_or_bytes)))
+        program = torch.export.load(io.BytesIO(bytes(path_or_bytes)), extra_files=extra)
     else:
-        program = torch.export.load(path_or_bytes)
+        program = torch.export.load(path_or_bytes, extra_files=extra)
+    if extra[_SHARDING]:
+        return ShardedProgram(program.module(), json.loads(extra[_SHARDING]), mesh)
     return program.module()
 
 

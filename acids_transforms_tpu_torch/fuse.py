@@ -44,13 +44,19 @@ representation pattern) without writing the spectrogram; under ``auto`` a
 window without taps takes it only inside its measured region
 (``regions.fit_fullk_region_ok``).
 
-Not ported yet (ROADMAP Queue 1 item 12): ``mesh=``.
+``mesh=`` (a ``DeviceMesh``, ``parallel/mesh.py``) partitions both over the
+leading batch axis ``shard_axis``: the forward runs each rank's slice through
+the single-device dispatch (kernels included) under
+``parallel.shard_map_batch`` and issues no collective; the fit runs the
+statistics kernel on each rank's slice and combines the per-shard statistics
+with three all-reduces of a few scalars (:func:`_combine_stats`).
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from .ops.cuda.spectral import (
     fused_melspec_available,
@@ -427,6 +433,7 @@ def fuse_forward(
     backend: str = "auto",
     out_dtype: torch.dtype = torch.float32,
     mesh=None,
+    shard_axis: str = "data",
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Return the fused forward for ``chain`` (see module docs).
 
@@ -438,11 +445,19 @@ def fuse_forward(
     pre-converting.  An explicit ``backend="kernel"`` on a chain the kernel
     does not cover raises; it takes the kernel outside the measured region
     too.
+
+    ``mesh=``: the returned forward runs under
+    ``parallel.shard_map_batch`` over ``shard_axis``: each rank calls the
+    single-device dispatch on its local batch slice (``(B, 1, L)`` for a
+    chain with ``Mono``; ``B`` divisible by the axis size) and the output is
+    a ``DTensor`` sharded on its batch axis, with no collective.
     """
     if backend not in _BACKENDS:
         raise ValueError("unknown fuse backend %r" % backend)
     if mesh is not None:
-        raise NotImplementedError("fuse_forward(mesh=) is not ported yet (ROADMAP Queue 1 item 12)")
+        from .parallel.sharding import shard_map_batch
+
+        return shard_map_batch(fuse_forward(chain, backend=backend, out_dtype=out_dtype), mesh, shard_axis)
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("fuse_forward: out_dtype must be float32 or bfloat16, got %s" % out_dtype)
     mmatch = _match_mfcc(chain, "eager")
@@ -536,8 +551,53 @@ def fit_fusable(chain: AudioTransform) -> bool:
     return _match_fit(chain) is not None or _match_repr(chain, "kernel") is not None
 
 
+def _combine_stats(st: dict, mesh, axis_name: str) -> dict:
+    """Cross-shard combine of a statistics tree (``sum`` / ``sumsq`` / ``min``
+    / ``max`` per channel, ``count``): the sums in one all-reduce SUM in the
+    dtype the kernel reduced them in (float64, so that a world of one is the
+    identity and the order of the ranks' float32 partials does not matter),
+    the extrema in one MIN and one MAX (exact), and ``count`` an exact Python
+    int times the axis size (every shard holds the same number of
+    elements)."""
+    group = mesh.get_group(axis_name)
+    n = mesh.size(mesh.mesh_dim_names.index(axis_name))
+    parts = {"sum": [], "min": [], "max": []}
+
+    def walk(d, path):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            elif k != "count":
+                parts["max" if k == "max" else "min" if k == "min" else "sum"].append((path + (k,), v))
+
+    walk(st, ())
+    out: dict = {"count": st["count"] * n} if "count" in st else {}
+    for kind, op in (("sum", dist.ReduceOp.SUM), ("min", dist.ReduceOp.MIN), ("max", dist.ReduceOp.MAX)):
+        if not parts[kind]:
+            continue
+        dtype = parts[kind][0][1].dtype
+        buf = torch.stack([v.to(dtype) for _, v in parts[kind]])
+        dist.all_reduce(buf, op=op, group=group)
+        for i, (path, v) in enumerate(parts[kind]):
+            node = out
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = buf[i].to(v.dtype)
+    return out
+
+
+def _stats_over(stats_fn, x: torch.Tensor, mesh, axis_name: str) -> dict:
+    """``stats_fn`` of ``x``, or with a mesh of each rank's batch slice,
+    combined over the ranks."""
+    if mesh is None:
+        return stats_fn(x)
+    from .parallel.sharding import local_batch
+
+    return _combine_stats(stats_fn(local_batch(x, mesh, axis_name, "fuse_fit(mesh=)")), mesh, axis_name)
+
+
 def fuse_fit(
-    chain: AudioTransform, backend: str = "auto", mesh=None
+    chain: AudioTransform, backend: str = "auto", mesh=None, shard_axis: str = "data"
 ) -> Callable[..., AudioTransform]:
     """Return a one-pass ``fit`` for a melspec or representation chain.
 
@@ -552,36 +612,39 @@ def fuse_fit(
     ``backend="kernel"`` forces the statistics path (its plain PyTorch version
     on a CPU tensor) and raises on a chain it does not cover.  A ``mask``
     always takes the exact cascade.
+
+    ``mesh=``: each rank runs the statistics kernel on its slice of the
+    leading batch axis ``shard_axis`` and only the per-shard scalars cross
+    ranks (:func:`_combine_stats`); the audio batch is never gathered.  Every
+    rank returns the same fitted chain.  The paths without the kernel (a
+    mask, ``auto`` on a CPU tensor, an unmatched chain) fit the whole batch
+    on every rank (a ``DTensor`` input is gathered for them).
     """
     if backend not in ("auto", "kernel"):
         raise ValueError("unknown fuse_fit backend %r" % backend)
-    if mesh is not None:
-        raise NotImplementedError("fuse_fit(mesh=) is not ported yet (ROADMAP Queue 1 item 12)")
     match = _match_fit(chain)
     # the representation fit takes the kernel's gate, as _match_fit does: the
     # channel-1 statistics are of the contrasted magnitude
     rmatch = _match_repr(chain, "kernel") if match is None else None
     if rmatch is not None:
-        return _fuse_fit_repr(chain, backend, *rmatch)
+        return _fuse_fit_repr(chain, backend, mesh, shard_axis, *rmatch)
     if match is None:
         if backend == "kernel":
             raise ValueError(
                 "backend='kernel' requested but the fused fit does not cover "
                 "this chain (see fuse_forward); use backend='auto'"
             )
-        return chain.fit
+        return _whole_fit(chain, mesh)
     mono, stft_t, mag_t = match
     norm = mag_t.norm
     if not _fittable(norm):
-        return chain.fit  # nothing to fit on this pattern
+        return _whole_fit(chain, mesh)  # nothing to fit on this pattern
 
     eager = backend == "auto" and not _fit_region(stft_t)
 
-    def fit(x: torch.Tensor, mask=None) -> AudioTransform:
-        if mask is not None or (backend == "auto" and not x.is_cuda) or eager:
-            return chain.fit(_from_pcm(x), mask=mask)
-        y = mono.forward(_from_pcm_for_mono(mono, x)) if mono is not None else x
-        st = fused_melspec_stats(
+    def stats(xl: torch.Tensor) -> dict:
+        y = mono.forward(_from_pcm_for_mono(mono, xl)) if mono is not None else xl
+        return fused_melspec_stats(
             y.reshape((-1, y.shape[-1])),
             stft_t.n_fft,
             stft_t.hop_length,
@@ -589,6 +652,11 @@ def fuse_fit(
             taps=stft_t._window_taps,
             window=stft_t.window,
         )
+
+    def fit(x: torch.Tensor, mask=None) -> AudioTransform:
+        if mask is not None or (backend == "auto" and not x.is_cuda) or eager:
+            return chain.fit(_from_pcm(_whole(x)), mask=mask)
+        st = _stats_over(stats, x, mesh, shard_axis)
         new_mag = mag_t.replace(norm=_norm_from_stats(norm, st))
         # Mono/STFT fits are no-ops in the matched pattern; only the
         # Magnitude's norm carries fitted state.
@@ -598,23 +666,43 @@ def fuse_fit(
     return fit
 
 
-def _fuse_fit_repr(chain, backend, mono, stft_t, rep, second):
+def _whole(x):
+    """``x``, or the whole of a ``DTensor`` input (an all-gather)."""
+    if type(x) is torch.Tensor:
+        return x
+    from .parallel.sharding import whole
+
+    return whole(x)
+
+
+def _whole_fit(chain: AudioTransform, mesh):
+    """``chain.fit``; with a mesh on the whole batch (a ``DTensor`` input
+    gathered first)."""
+    if mesh is None:
+        return chain.fit
+    return lambda x, mask=None: chain.fit(_whole(x), mask=mask)
+
+
+def _fuse_fit_repr(chain, backend, mesh, shard_axis, mono, stft_t, rep, second):
     """The representation pattern's one-pass fit: both channels' statistics
     from one kernel launch (``fused_repr_stats``); a ``Dummy`` channel keeps
     its identity norm."""
     if not (_fittable(rep.magnitude.norm) or _fittable(rep.phase.norm)):
-        return chain.fit  # both channels unnormalized: nothing to fit
+        return _whole_fit(chain, mesh)  # both channels unnormalized: nothing to fit
     contrast, _, weighted = _repr_config(rep, second)
     eager = backend == "auto" and not _fit_region(stft_t)
 
-    def fit(x: torch.Tensor, mask=None) -> AudioTransform:
-        if mask is not None or (backend == "auto" and not x.is_cuda) or eager:
-            return chain.fit(_from_pcm(x), mask=mask)
-        y = mono.forward(_from_pcm_for_mono(mono, x)) if mono is not None else x
-        st = fused_repr_stats(
+    def stats(xl: torch.Tensor) -> dict:
+        y = mono.forward(_from_pcm_for_mono(mono, xl)) if mono is not None else xl
+        return fused_repr_stats(
             y.reshape((-1, y.shape[-1])), stft_t.n_fft, stft_t.hop_length, second,
             contrast=contrast, weighted=weighted, taps=stft_t._window_taps, window=stft_t.window,
         )
+
+    def fit(x: torch.Tensor, mask=None) -> AudioTransform:
+        if mask is not None or (backend == "auto" and not x.is_cuda) or eager:
+            return chain.fit(_from_pcm(_whole(x)), mask=mask)
+        st = _stats_over(stats, x, mesh, shard_axis)
         new_mag, new_ph = rep.magnitude, rep.phase
         if _fittable(new_mag.norm):
             new_mag = new_mag.replace(norm=_norm_from_stats(new_mag.norm, {**st["ch1"], "count": st["count"]}))

@@ -280,8 +280,15 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on the first call."""
+    """The kernels' shared library, built on the first call.
+
+    Raises under a fake-tensor trace (a shape probe, ``torch.export``): a
+    fake tensor's data pointer is 0, so no kernel may be launched there."""
     global _lib, _lib_dir, _build_seconds
+    from ..._device import under_fake_tensors
+
+    if under_fake_tensors():
+        raise RuntimeError("no kernel launch under a fake-tensor trace (shapes only)")
     with _lock:
         if _lib is None:
             t0 = time.perf_counter()

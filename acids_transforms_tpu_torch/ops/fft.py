@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._device import under_fake_tensors
 from .framing import frame, overlap_add
 
 __all__ = [
@@ -146,6 +147,8 @@ def _on_device(builder, args: tuple, device_str: str) -> Tuple[torch.Tensor, ...
 
 
 def _tables(builder, device: torch.device, *args) -> Tuple[torch.Tensor, ...]:
+    if under_fake_tensors():  # a shape probe's fake tables must not be cached
+        return _on_device.__wrapped__(builder, args, str(device))
     return _on_device(builder, args, str(device))
 
 

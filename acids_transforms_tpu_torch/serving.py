@@ -29,7 +29,15 @@ on a CUDA tensor that is kernel A for the log-mel and MFCC patterns.
 :class:`StreamingSession` is the live, chunk-by-chunk half: the chain's
 streaming state, replaced by every step, and a session-owned generator.
 
-Not ported yet (ROADMAP Queue 1 item 12): ``mesh=``.
+``mesh=`` (a ``DeviceMesh``, ``parallel/mesh.py``) serves over the ranks of
+the mesh axis ``shard_axis``: both directions of the server, and the live
+session's steps, run each rank's slice of the leading batch axis under
+``parallel.shard_map_batch`` (no collective), and return ``DTensor`` s sharded
+on the batch axis.  Every batch bucket must divide by the axis size.  A request
+short of its batch bucket is padded globally and its rows are gathered for the
+trim (one all-gather); at the ladder's batch sizes nothing crosses ranks.
+Phaseless inverts and decodes draw from a generator of each shard's own
+(``parallel.sharding.shard_generator``).
 """
 from __future__ import annotations
 
@@ -47,9 +55,6 @@ from .utils.bucketing import default_buckets
 
 __all__ = ["CompiledTransform", "StreamingSession"]
 
-_MESH = "%s(mesh=) is not ported yet (ROADMAP Queue 1 item 12)"
-
-
 def _meta_copy(transform: AudioTransform) -> AudioTransform:
     """A copy of ``transform`` on the ``meta`` device: its buffers become
     meta tensors (none is copied on the card) and every transform's
@@ -62,11 +67,24 @@ def _meta_copy(transform: AudioTransform) -> AudioTransform:
     return meta
 
 
+def _on_local(y, axis_slices, op):
+    """``op`` on the local tensor of a ``DTensor`` (a sharded server's
+    output), its placements kept; a dim that ``axis_slices`` changes and that
+    is sharded is gathered first (an all-gather)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if any(p.is_shard() and p.dim in axis_slices for p in y.placements):
+        y = y.redistribute(y.device_mesh, [Replicate()] * y.device_mesh.ndim)
+    return DTensor.from_local(op(y.to_local()), y.device_mesh, y.placements, run_check=False)
+
+
 def _pad(x: torch.Tensor, axis: int, to: int) -> torch.Tensor:
     """Zero-pad axis ``axis`` (non-negative) of ``x`` at its end to ``to``."""
     extra = to - x.shape[axis]
     if extra == 0:
         return x
+    if type(x) is not torch.Tensor:
+        return _on_local(x, {axis}, lambda t: _pad(t, axis, t.shape[axis] + extra))
     pads = [0, 0] * (x.ndim - 1 - axis) + [0, extra]
     return F.pad(x, pads)
 
@@ -98,9 +116,17 @@ class CompiledTransform:
         inversion_mode: Optional[str] = None,
         frame_axis: Optional[int] = None,
         mesh=None,
+        shard_axis: str = "data",
     ):
+        self.mesh, self.shard_axis = mesh, shard_axis
         if mesh is not None:
-            raise NotImplementedError(_MESH % "CompiledTransform")
+            n = mesh.size(list(mesh.mesh_dim_names).index(shard_axis))
+            bad = [b for b in batch_sizes if b % n]
+            if bad:
+                raise ValueError(
+                    "CompiledTransform(mesh=): batch_sizes %r do not divide the mesh axis %r "
+                    "(size %d); pick multiples of the mesh size" % (bad, shard_axis, n)
+                )
         self.transform = transform
         # sorted: _bucket's ladder-exceeded error reads buckets[-1] as the max
         self.buckets = tuple(sorted(buckets)) if buckets else default_buckets(max_seconds=30.0)
@@ -128,8 +154,19 @@ class CompiledTransform:
     def refresh(self) -> None:
         """Re-snapshot the (possibly refit) transform: both directions serve
         the copy taken here."""
-        self._frozen = copy.deepcopy(self.transform)
-        self._fwd = fuse_forward(self._frozen) if self._fused else self._frozen.forward
+        self._frozen = frozen = copy.deepcopy(self.transform)
+        mode = self.inversion_mode
+        fwd = fuse_forward(frozen) if self._fused else frozen.forward
+        if self.mesh is None:
+            self._fwd = fwd
+            self._inv = lambda y: frozen.invert(y, inversion_mode=mode)
+        else:
+            from .parallel.sharding import shard_map_batch
+
+            self._fwd = shard_map_batch(fwd, self.mesh, self.shard_axis)
+            inv = shard_map_batch(lambda v, g: frozen.invert(v, inversion_mode=mode, generator=g),
+                                  self.mesh, self.shard_axis, keyed=True)
+            self._inv = lambda y: inv(y, None)
         self._meta: Optional[AudioTransform] = None
         self._shape_cache: Dict = {}
         self._t_ladder_cache: Optional[Tuple[int, ...]] = None
@@ -140,7 +177,7 @@ class CompiledTransform:
 
     def _run_invert(self, y: torch.Tensor) -> torch.Tensor:
         self.shapes["invert"].add((tuple(y.shape), y.dtype))
-        return self._frozen.invert(y, inversion_mode=self.inversion_mode)
+        return self._inv(y)
 
     # ------------------------------------------------------------- shaping
     def _meta_forward_shape(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
@@ -216,7 +253,11 @@ class CompiledTransform:
                 "input must be a true batch axis (use (B, C, L) for channel chains; see "
                 "CompiledTransform docs)" % (y.ndim, len(true_shape))
             )
-        return y[tuple(slice(0, min(s, t)) for s, t in zip(y.shape, true_shape))]
+        cut = {d: slice(0, t) for d, (s, t) in enumerate(zip(y.shape, true_shape)) if t < s}
+        index = tuple(cut.get(d, slice(None)) for d in range(y.ndim))
+        if type(y) is not torch.Tensor:
+            return _on_local(y, set(cut), lambda t: t[index]) if cut else y
+        return y[index]
 
     # ----------------------------------------------------------------- api
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -311,9 +352,8 @@ class StreamingSession:
         inversion_mode: Optional[str] = None,
         seed: int = 0,
         mesh=None,
+        shard_axis: str = "data",
     ):
-        if mesh is not None:
-            raise NotImplementedError(_MESH % "StreamingSession")
         self.transform = transform
         self.chunk_size = int(chunk_size)
         self.inversion_mode = inversion_mode
@@ -322,6 +362,28 @@ class StreamingSession:
         self.generator = torch.Generator(device=transform.device).manual_seed(int(seed))
         self._n_chunks = 0  # chunks encoded since reset (time threading)
         self._chunk_tmap: Optional[torch.Tensor] = None
+        mode = inversion_mode
+        if mesh is None:
+            self._step = lambda st, x: transform.step(st, x)
+            self._step_invert = lambda st, y, g: transform.step_invert(st, y, inversion_mode=mode, generator=g)
+        else:
+            # each rank steps its local sessions; the transform is
+            # snapshotted here (a refit needs a new session)
+            from .parallel.sharding import shard_map_batch
+
+            if not self.batch_shape:
+                raise ValueError(
+                    "StreamingSession(mesh=) needs a batched session (batch_shape with a "
+                    "leading axis divisible by the mesh axis)"
+                )
+            frozen = copy.deepcopy(transform)
+            step = shard_map_batch(lambda x, st: frozen.step(st, x), mesh, shard_axis)
+            inv = shard_map_batch(
+                lambda y, g, st: frozen.step_invert(st, y, inversion_mode=mode, generator=g),
+                mesh, shard_axis, keyed=True,
+            )
+            self._step = lambda st, x: step(x, st)
+            self._step_invert = lambda st, y, g: inv(y, g, st)
 
     def reset(self, batch_shape: Optional[Tuple[int, ...]] = None) -> None:
         """Fresh streaming state (a new utterance); the generator runs on."""
@@ -341,7 +403,7 @@ class StreamingSession:
             from .streaming import session_frame_times
 
             self._chunk_tmap = session_frame_times(self.transform, self.chunk_size, 1).cpu()
-        self.state, y = self.transform.step(self.state, chunk)
+        self.state, y = self._step(self.state, chunk)
         n = self._n_chunks
         self._n_chunks += 1
         if not with_time:
@@ -350,9 +412,7 @@ class StreamingSession:
 
     def decode(self, frames: torch.Tensor) -> torch.Tensor:
         """One synthesis step: frames / features -> ``(..., chunk)`` audio."""
-        self.state, rec = self.transform.step_invert(
-            self.state, frames, inversion_mode=self.inversion_mode, generator=self.generator
-        )
+        self.state, rec = self._step_invert(self.state, frames, self.generator)
         return rec
 
     def process(self, chunk: torch.Tensor) -> torch.Tensor:

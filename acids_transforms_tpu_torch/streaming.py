@@ -37,8 +37,16 @@ package takes a key; None means one seeded with 0 for the session.  The
 generic scan hands it to ``chain.init_state`` (the sinebank's phases) and to
 ``chain.step_invert`` chunk by chunk, and the session kernels and the closed
 form draw from it in the same order and shapes, so on one device both routes
-see the same angles.  ``mesh=`` (multi-device sessions)
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 12).
+see the same angles.
+
+``mesh=`` (a ``DeviceMesh``, ``parallel/mesh.py``) runs the sessions of each
+rank's slice of the leading batch axis ``shard_axis`` through the
+single-device dispatch (session kernels included) under
+``parallel.shard_map_batch``, with no collective; outputs and states come back
+as ``DTensor`` s sharded on the batch axis.  The random modes give each shard
+a generator of its own (``parallel.sharding.shard_generator``: one draw of
+``generator`` with the shard index folded in), so a sharded session draws
+other angles than one device would, from the same distribution.
 """
 from __future__ import annotations
 
@@ -355,14 +363,6 @@ def _session_generator(generator: Optional[torch.Generator], device) -> torch.Ge
     return g
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device streaming sessions (mesh=) are not ported yet "
-            "(ROADMAP Queue 1 item 12)"
-        )
-
-
 def _concat_frames(ys):
     """Per-chunk outputs ``(..., T_c, F...)`` concatenated along the frame axis."""
     return torch.cat(ys, dim=-2) if ys[0].ndim >= 2 else torch.cat(ys, dim=-1)
@@ -375,6 +375,7 @@ def scan_forward(
     state: Any = None,
     backend: str = "auto",
     mesh: Any = None,
+    shard_axis: str = "data",
     with_time: bool = False,
 ):
     """Run the chain's streaming forward over chunks of ``x``: ``(outputs,
@@ -387,11 +388,19 @@ def scan_forward(
     carried over from the JAX package goes through
     ``convert.load_jax_stream_state``).  ``with_time=True`` returns
     ``(outputs, times, final_state)`` with the frame-start seconds of
-    :func:`session_frame_times` (session start at 0)."""
+    :func:`session_frame_times` (session start at 0).  Under ``mesh=`` the
+    state, when given, is batch-leading like ``x`` and the times replicated."""
     from .ops.cuda.stream_step import make_fused_forward_session
 
-    _no_mesh(mesh)
     n_chunks = -(-x.shape[-1] // chunk_size)
+    if mesh is not None:
+        from .parallel.sharding import shard_map_batch
+
+        def inner(v, *st):
+            return scan_forward(chain, v, chunk_size, st[0] if st else None, backend)
+
+        ys, st = shard_map_batch(inner, mesh, shard_axis)(*((x,) if state is None else (x, state)))
+        return (ys, session_frame_times(chain, chunk_size, n_chunks), st) if with_time else (ys, st)
     times = session_frame_times(chain, chunk_size, n_chunks) if with_time else None
 
     def _ret(ys, st):
@@ -427,6 +436,7 @@ def scan_invert(
     generator: Optional[torch.Generator] = None,
     backend: str = "auto",
     mesh: Any = None,
+    shard_axis: str = "data",
 ) -> torch.Tensor:
     """Streaming DECODE: spectra or magnitudes ``(..., T, F)`` -> audio
     ``(..., T * R)`` (``R = hop`` for ``[OverlapAdd, RealtimeSTFT]``), chunks
@@ -439,7 +449,8 @@ def scan_invert(
     on the whole session first (stateless and frame-local: equal to the
     per-chunk application).  ``"pghi_gl"`` runs O: per chunk the seeded
     recurrence and the projections, then P's synthesis.  ``"sinebank"``
-    takes a closed form on either device (:func:`_sinebank_session`)."""
+    takes a closed form on either device (:func:`_sinebank_session`).
+    Under ``mesh=`` the spectra need an explicit batch axis ``(B, T, F)``."""
     from .ops.cuda.stream_step import (
         make_fused_complex_invert,
         make_fused_pghi_gl_invert,
@@ -447,7 +458,22 @@ def scan_invert(
         make_fused_random_invert,
     )
 
-    _no_mesh(mesh)
+    if mesh is not None:
+        from .parallel.sharding import shard_map_batch
+
+        if getattr(y, "ndim", 0) < 3:
+            # the generic rank-2 guard would take an unbatched (T, F)
+            # spectrogram's frame axis for a batch axis
+            raise ValueError(
+                "scan_invert(mesh=): spectra must carry an explicit leading batch axis "
+                "(B, T, F); got shape %r.  Add a batch dim (y[None]) or drop mesh=."
+                % (tuple(getattr(y, "shape", ())),)
+            )
+
+        def inner(v, g):
+            return scan_invert(chain, v, chunk_frames, inversion_mode, g, backend)
+
+        return shard_map_batch(inner, mesh, shard_axis, keyed=True)(y, generator)
     plan = plan_invert(chain, tuple(y.shape), chunk_frames, inversion_mode,
                        y_is_complex=y.is_complex(), backend=backend, device=y.device)
     g = _session_generator(generator, y.device)
@@ -489,6 +515,7 @@ def scan_roundtrip(
     generator: Optional[torch.Generator] = None,
     backend: str = "auto",
     mesh: Any = None,
+    shard_axis: str = "data",
 ) -> torch.Tensor:
     """Full streaming roundtrip (forward then invert, chunk by chunk): the
     reference's realtime loop.  Returns ``(..., n_chunks * chunk_size)``,
@@ -515,7 +542,13 @@ def scan_roundtrip(
         make_fused_roundtrip,
     )
 
-    _no_mesh(mesh)
+    if mesh is not None:
+        from .parallel.sharding import shard_map_batch
+
+        def inner(v, g):
+            return scan_roundtrip(chain, v, chunk_size, inversion_mode, g, backend)
+
+        return shard_map_batch(inner, mesh, shard_axis, keyed=True)(x, generator)
     plan = plan_roundtrip(chain, tuple(x.shape), chunk_size, inversion_mode, backend=backend,
                           device=x.device)
     g = _session_generator(generator, x.device)

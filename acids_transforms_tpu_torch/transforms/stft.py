@@ -42,7 +42,7 @@ from ..ops.fft import irfft_frames, istft, rfft_frames, stft as stft_op, taps_fo
 from ..ops.framing import frame, overlap_add
 from ..ops.griffinlim import griffin_lim
 from ..ops.interp import interp_linear
-from ..ops.pghi import pghi_heap_numpy, pghi_scan, random_angles
+from ..ops.pghi import pghi_scan, random_angles
 from ..ops.windows import dual_window, get_window, window_gamma
 from .base import AudioTransform
 
@@ -318,11 +318,15 @@ class STFT(AudioTransform):
         )
 
     def pghi_exact(self, mag: torch.Tensor, tolerance: Optional[float] = None) -> torch.Tensor:
-        """Heap-ordered PGHI on the host, one spectrogram at a time (the oracle)."""
+        """Heap-ordered PGHI on the host, one spectrogram at a time, by the
+        native heap (``native/pghi.cc``; its plain version and oracle is
+        ``ops/pghi.py:pghi_heap_numpy``)."""
+        from ..native import pghi_native
+
         m = mag.detach().cpu().numpy()
         flat = m.reshape((-1,) + m.shape[-2:])
         out = np.stack([
-            pghi_heap_numpy(f, self.gamma, self.n_fft, self.hop_length, self._tol(tolerance))
+            pghi_native.pghi(f, self.gamma, self.n_fft, self.hop_length, self._tol(tolerance))
             for f in flat
         ])
         return torch.as_tensor(out.reshape(m.shape), dtype=torch.float32, device=mag.device)

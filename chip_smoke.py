@@ -47,7 +47,16 @@ chunk), npz checkpoints (``export.save_transform`` / ``load_transform``),
 ``torch.export`` of the kernel forward (``export.export_program`` /
 ``load_program``: kernel A as the registered operator
 ``acids_transforms_tpu_torch::fused_melspec``, one launch a call at any
-batch, int16 too) and ``invert_with_phase_fn``.  The session encode (R, the magnitude encode), the full-K
+batch, int16 too) and ``invert_with_phase_fn``, and (phase 4l) the parallel
+layer on a world of one over NCCL (``parallel.local_mesh()`` on the card):
+``fuse_fit`` / ``fuse_forward`` / the three scans / ``CompiledTransform`` /
+``StreamingSession`` / ``export_program(in_shardings=)`` under ``mesh=``,
+bit-identical to the direct calls where deterministic, with their launches
+and the collectives each issued (none but the fit's three scalar
+all-reduces), the sequence-parallel STFT / ISTFT on 2^24 samples, a
+``torch.profiler`` trace of the log-mel fit + forward, and the native layer
+(``pghi_exact``'s heap beside the numpy one, 128 clips through the WAV
+writer and ``import_data``).  The session encode (R, the magnitude encode), the full-K
 melspec front end (E, F), the full-K Griffin-Lim step (J) and the streaming
 roundtrips (L, M), K's synthesis, the full-K representation kernels (G,
 H), the Griffin-Lim step of cosine-sum windows (C, its chain D, the
@@ -2447,6 +2456,327 @@ def serving_export_phase(args, dev, audio, stream, errs, counts):
     log(f"  phase 4k {time.perf_counter() - t_start:.1f} s")
 
 
+def parallel_phase(args, dev, audio, stream, errs):
+    """Phase 4l: the parallel layer, ``utils`` and ``native`` on the card.
+
+    The machine holds one card and NCCL refuses two ranks on one GPU, so the
+    phase runs a **world of one** over NCCL (a ``HashStore``, rank 0 of 1),
+    builds ``parallel.local_mesh()`` on ``"cuda"`` and destroys the group at
+    its end.  Each ``mesh=`` leg then launches exactly the kernels of the
+    direct call, and every deterministic output must be bit-identical to it
+    (a one-rank all-reduce is the identity):
+
+    * **log-mel chain** (phase 4's clips at full width): ``fuse_fit(mesh=)``
+      (one B launch, the fitted chain bit-identical) then
+      ``fuse_forward(mesh=)`` (one A launch, bit-identical), timed beside the
+      direct calls in turns (``host_and_device_ms``);
+    * **sessions** (phase 4f's sessions): ``scan_forward`` (R, bit-identical,
+      its state too), ``scan_roundtrip(pghi)`` and ``scan_invert(random)``
+      under ``mesh=`` with the direct routes' launches; the keyed modes draw
+      from a generator of the shard's own, so their spectral convergence must
+      lie within ``1.1 s + 1e-3`` of the direct route's;
+    * **serving**: ``CompiledTransform(mesh=)`` at the ladder's shape (A once,
+      bit-identical; the invert's C and D launches as the direct server's,
+      within the GL margin) and ``StreamingSession(mesh=)`` for 3 chunks
+      (the encode bit-identical to a direct session's);
+    * **sequence parallel**: ``sequence_parallel_stft`` / ``istft`` on 1 x
+      2^24 samples (1024/256 hann) within 1e-5 of the unsharded
+      ``center=False`` STFT, the roundtrip within 1e-5 on the interior, timed;
+    * **collectives** (``utils.record_collectives``): none on the forward,
+      the sessions, the server and the export; three scalar all-reduces on
+      the fit;
+    * **export**: ``export_program(in_shardings=mesh)`` of the kernel forward,
+      loaded and run (one A launch through the operator, bit-identical);
+    * **trace**: ``utils.trace`` around one log-mel fit + forward: the kernel
+      events and the host / device split (the port's first profiler trace);
+    * **native**: ``STFT.pghi_exact`` (the native heap) on one 690 x 513
+      clip beside the numpy heap in host ms (within 1e-3 rad on audible
+      cells), and 128 clips written and read back as WAV (bit-identical)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    import acids_transforms_tpu_torch as att
+    from acids_transforms_tpu_torch import export, parallel, serving, streaming, utils
+    from acids_transforms_tpu_torch import transforms as T
+    from acids_transforms_tpu_torch.native import build as native_build
+    from acids_transforms_tpu_torch.native import pghi_native, wavio_native
+    from acids_transforms_tpu_torch.ops.cuda import glstep, pghi_kernel, spectral
+    from acids_transforms_tpu_torch.ops.fft import istft, stft
+    from acids_transforms_tpu_torch.ops.pghi import pghi_heap_numpy
+    from acids_transforms_tpu_torch.utils.collectives import collective_violations, record_collectives
+
+    t_start = time.perf_counter()
+    ss = stream["ss"]
+    wrappers = (spectral, glstep, pghi_kernel, ss)
+
+    def zero():
+        for w in wrappers:
+            w.reset_launches()
+
+    def launched():
+        torch.cuda.synchronize()
+        return {k: v for w in wrappers for k, v in w.launches.items() if v}
+
+    def run(fn):
+        """``fn()`` with every counter at 0 before and read after, and the
+        collectives it issued."""
+        zero()
+        with record_collectives() as recs:
+            out = fn()
+        return out, launched(), recs
+
+    fmt = lambda v: "not isolated" if v is None else f"{v:.3f}"
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = parallel.local_mesh()
+        B, L = audio.shape[0], audio.shape[-1]
+        log(f"[4l] parallel layer: a world of one over NCCL ({dist.get_backend()}), mesh {mesh}; "
+            f"{B} stereo clips of {L} samples")
+        require(mesh.device_type == "cuda" and mesh.size() == 1 and mesh.mesh_dim_names == ("data",),
+                "local_mesh() on the card")
+        coll = {}
+
+        # ---- the log-mel chain
+        chain = T.Mono() + T.STFT(n_fft=N_FFT, hop_length=HOP) + T.Magnitude(
+            mode="unipolar", contrast="log1p", mel=True, n_fft=N_FFT)
+        fit_d, got_d, _ = run(lambda: att.fuse_fit(chain)(audio))
+        fit_m, got_m, coll["fit"] = run(lambda: att.fuse_fit(chain, mesh=mesh)(audio))
+        same = all(torch.equal(getattr(fit_m[2].norm, k), getattr(fit_d[2].norm, k)) for k in ("offset", "scale"))
+        log(f"  fuse_fit(mesh=): launches {got_m} (direct {got_d}); fitted offset / scale bit-identical: {same}")
+        require(got_m == got_d == {"fused_melspec_stats": 1} and same, "fuse_fit(mesh=) on a world of one")
+        fwd_d, fwd_m = att.fuse_forward(fit_d), att.fuse_forward(fit_d, mesh=mesh)
+        y_d, got_d, _ = run(lambda: fwd_d(audio))
+        y_m, got_m, coll["forward"] = run(lambda: fwd_m(audio))
+        same = torch.equal(y_m.to_local(), y_d)
+        log(f"  fuse_forward(mesh=): {type(y_m).__name__} {tuple(y_m.shape)} placed {y_m.placements}, launches "
+            f"{got_m} (direct {got_d}); bit-identical: {same}")
+        require(got_m == got_d == {"fused_melspec": 1} and same, "fuse_forward(mesh=) on a world of one")
+        legs = (("fit", lambda: att.fuse_fit(chain)(audio), lambda: att.fuse_fit(chain, mesh=mesh)(audio)),
+                ("forward", lambda: fwd_d(audio), lambda: fwd_m(audio)))
+        for name, f_d, f_m in legs:
+            rows = {"direct": [], "mesh": []}
+            for _ in range(3):     # in turns
+                rows["direct"].append(host_and_device_ms(f_d, 10))
+                rows["mesh"].append(host_and_device_ms(f_m, 10))
+            for k, v in rows.items():
+                host = statistics.median(h for h, _ in v)
+                cards = [c for _, c in v if c is not None]
+                card = statistics.median(cards) if cards else None
+                log(f"    {name} {k:6s}: host {host:.3f} ms a call to enqueue, card {fmt(card)} ms a call "
+                    f"(3 turns of 10 calls)")
+        del y_d, y_m
+
+        # ---- the streaming sessions
+        sx, s_chain, sgen, CH = stream["sx"], stream["chain"], stream["sgen"], STREAM_CHUNK
+        T_C = CH // HOP
+        sc_of = stream["make_sc"](sx)
+        (sp_d, st_d), got_d, _ = run(lambda: streaming.scan_forward(s_chain, sx, CH))
+        (sp_m, st_m), got_m, coll["scan_forward"] = run(lambda: streaming.scan_forward(s_chain, sx, CH, mesh=mesh))
+        leaves = lambda s: [l for l in torch.utils._pytree.tree_leaves(s) if isinstance(l, torch.Tensor)]
+        same = torch.equal(sp_m.to_local(), sp_d) and all(
+            torch.equal(a.to_local(), b) for a, b in zip(leaves(st_m), leaves(st_d)))
+        log(f"  scan_forward(mesh=) on {tuple(sx.shape)}: launches {got_m} (direct {got_d}); spectra and state "
+            f"bit-identical: {same}")
+        require(got_m == got_d and got_d.get("session_encode") == 1 and same, "scan_forward(mesh=)")
+        mags = sp_d.abs()
+        keyed = (
+            ("scan_roundtrip(pghi)", lambda g: streaming.scan_roundtrip(s_chain, sx, CH, "pghi", generator=g),
+             lambda g: streaming.scan_roundtrip(s_chain, sx, CH, "pghi", generator=g, mesh=mesh)),
+            ("scan_invert(random)", lambda g: streaming.scan_invert(s_chain, mags, T_C, "random", generator=g),
+             lambda g: streaming.scan_invert(s_chain, mags, T_C, "random", generator=g, mesh=mesh)),
+        )
+        for i, (name, f_d, f_m) in enumerate(keyed):
+            r_d, got_d, _ = run(lambda: f_d(sgen(100 + i)))
+            r_m, got_m, coll[name] = run(lambda: f_m(sgen(100 + i)))
+            s_d, s_m = sc_of(r_d), sc_of(r_m.to_local())
+            log(f"  {name} (mesh=): launches {got_m} (direct {got_d}); spectral convergence {s_m:.5f}, direct "
+                f"{s_d:.5f} (must be <= {1.1 * s_d + 1e-3:.5f})")
+            require(got_m == got_d and got_d and s_m <= 1.1 * s_d + 1e-3, f"{name} under mesh=")
+            del r_d, r_m
+        del sp_d, sp_m, st_d, st_m, mags
+
+        # ---- serving
+        srv_d = serving.CompiledTransform(fit_d, buckets=(L,), batch_sizes=(B,))
+        srv_m = serving.CompiledTransform(fit_d, buckets=(L,), batch_sizes=(B,), mesh=mesh)
+        y_d, _, _ = run(lambda: srv_d.forward(audio))
+        y_m, got_m, coll["serve_forward"] = run(lambda: srv_m.forward(audio))
+        same = torch.equal(y_m.to_local(), y_d)
+        log(f"  CompiledTransform(mesh=).forward at the ladder's shape {tuple(audio.shape)}: launches {got_m}; "
+            f"bit-identical to the direct server: {same}")
+        require(got_m == {"fused_melspec": 1} and same, "CompiledTransform(mesh=).forward")
+        r_d, got_d, _ = run(lambda: srv_d.invert(y_d))
+        r_m, got_m, coll["serve_invert"] = run(lambda: srv_m.invert(y_m))
+        stft_f, target = fit_d[1], fit_d[2].invert(y_d)
+
+        def convergence(rec):
+            R = stft_f.forward(rec.reshape(target.shape[0], -1)).abs()
+            n = min(R.shape[-2], target.shape[-2])
+            return (torch.linalg.norm(R[:, :n] - target[:, :n]) / torch.linalg.norm(target[:, :n])).item()
+
+        s_d, s_m = convergence(r_d), convergence(r_m.to_local())
+        bound = max(1.15 * s_d, s_d + 0.02)
+        log(f"  CompiledTransform(mesh=).invert: launches {got_m} (direct {got_d}); spectral convergence "
+            f"{s_m:.5f}, direct {s_d:.5f} (must be < {bound:.5f})")
+        require(got_m == got_d and s_m < bound, "CompiledTransform(mesh=).invert")
+        del y_d, y_m, r_d, r_m, target
+        SB = sx.shape[0]
+        sess_chain = T.OverlapAdd(N_FFT, HOP) + T.RealtimeSTFT(n_fft=N_FFT, hop_length=HOP, inversion_mode="pghi")
+        s_d = serving.StreamingSession(sess_chain, CH, batch_shape=(SB,), inversion_mode="pghi")
+        s_m = serving.StreamingSession(sess_chain, CH, batch_shape=(SB,), inversion_mode="pghi", mesh=mesh)
+        same, recs_all, outs = True, [], []
+        for i in range(3):
+            chunk = sx[:, i * CH:(i + 1) * CH]
+            with record_collectives() as recs:
+                f_m = s_m.encode(chunk)
+                outs.append(s_m.decode(f_m.abs()))
+            recs_all += recs
+            same = same and torch.equal(f_m.to_local(), s_d.encode(chunk))
+        coll["session"] = recs_all
+        fin = all(torch.isfinite(o.to_local()).all().item() and tuple(o.shape) == (SB, CH) for o in outs)
+
+        def chunk_ms(sess):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(3, 6):
+                sess.process(sx[:, i * CH:(i + 1) * CH])
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0) / 3
+
+        ms_m, ms_d = chunk_ms(s_m), chunk_ms(s_d)
+        log(f"  StreamingSession(mesh=) {SB} sessions x 3 chunks: encode bit-identical to a direct session's: "
+            f"{same}; decodes finite ({fin}); then {ms_m:.1f} ms a chunk, a direct session {ms_d:.1f} "
+            f"(process, host clock, 3 chunks)")
+        require(same and fin, "StreamingSession(mesh=)")
+        del outs
+
+        # ---- sequence parallelism
+        smesh = parallel.local_mesh(axis="seq")
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 97)
+        xl = 0.3 * torch.randn((1, 1 << 24), generator=gen, device=dev)
+        w = torch.hann_window(N_FFT, device=dev)
+        sp, _, coll["seq_stft"] = run(lambda: parallel.sequence_parallel_stft(xl, N_FFT, HOP, w, smesh))
+        ref = stft(xl, N_FFT, HOP, w, center=False)
+        m = ref.shape[-2]
+        e_stft = rel_err(torch.view_as_real(sp.to_local()[..., :m, :]), torch.view_as_real(ref))
+        back = parallel.sequence_parallel_istft(sp, N_FFT, HOP, w, smesh).to_local()
+        inner = slice(N_FFT, xl.shape[-1] - N_FFT)
+        e_rt = abs_err(back[..., inner], xl[..., inner])
+        inner_u = slice(N_FFT, (m - 1) * HOP)     # where both cover every sample with whole frames
+        e_istft = rel_err(back[..., inner_u], istft(ref, N_FFT, HOP, w, center=False)[..., inner_u])
+        t_s = time_ms(lambda: parallel.sequence_parallel_stft(xl, N_FFT, HOP, w, smesh), 3, 1)
+        t_i = time_ms(lambda: parallel.sequence_parallel_istft(sp, N_FFT, HOP, w, smesh), 3, 1)
+        t_u = time_ms(lambda: stft(xl, N_FFT, HOP, w, center=False), 3, 1)
+        log(f"  sequence_parallel_stft on {tuple(xl.shape)} ({N_FFT}/{HOP} hann): {tuple(sp.shape)}, rel {e_stft:.3e} "
+            f"against the unsharded center=False STFT (tol 1e-5); istft rel {e_istft:.3e} against the unsharded "
+            f"istft on the interior, roundtrip abs {e_rt:.3e} on the interior (tol 1e-5); {t_s:.2f} ms / {t_i:.2f} ms (stft / "
+            f"istft), unsharded stft {t_u:.2f} ms")
+        require(e_stft <= 1e-5 and e_rt <= 1e-5 and e_istft <= 1e-5, "sequence parallel STFT / ISTFT")
+        require(coll["seq_stft"] == [], "a world of one exchanges no halo")
+        del xl, sp, ref, back
+
+        # ---- export
+        fwd_k = att.fuse_forward(fit_d, backend="kernel")
+        blob = export.export_program(fwd_k, (audio[:8],), in_shardings=mesh)
+        prog = export.load_program(blob, mesh=mesh)
+        y_p, got, coll["export"] = run(lambda: prog(audio[:8]))
+        n_op = spectral.op_calls["fused_melspec"]
+        same = torch.equal(y_p.to_local(), fwd_k(audio[:8]))
+        log(f"  export_program(in_shardings=mesh): {len(blob)} bytes, sharding {prog.sharding}; loaded and run: "
+            f"launches {got}, through the operator {n_op}; bit-identical: {same}")
+        require(same and got == {"fused_melspec": 1} and n_op == 1, "the sharded exported program")
+        del y_p
+
+        # ---- collectives
+        log("  collectives a leg (utils.record_collectives): " + json.dumps(
+            {k: [list(r) for r in v] for k, v in coll.items()}))
+        for k, v in coll.items():
+            if k == "fit":
+                require([op for op, _ in v] == ["all_reduce"] * 3
+                        and not collective_violations(v, allow_scalar_all_reduce=True),
+                        f"fuse_fit(mesh=) issued {v}")
+            else:
+                require(not v, f"{k} issued collectives {v}")
+    finally:
+        dist.destroy_process_group()
+    log(f"  process group destroyed: {not dist.is_initialized()}")
+
+    # ---- the trace
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as log_dir:
+        with utils.trace(log_dir) as prof:
+            with utils.annotate("att_fit"):
+                fitted = att.fuse_fit(chain)(audio)
+            with utils.annotate("att_forward"):
+                att.fuse_forward(fitted)(audio)
+            torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        with open(os.path.join(log_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    from torch.autograd import DeviceType
+
+    dev_of = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+    ev = prof.key_averages()
+    spans = ("att_fit", "att_forward")     # the annotations' own ranges on the card's timeline
+    kernels_ev = sorted((e for e in ev if e.device_type == DeviceType.CUDA and e.key not in spans), key=dev_of,
+                        reverse=True)
+    host_us = sum(e.self_cpu_time_total for e in ev if e.device_type == DeviceType.CPU)
+    dev_us = sum(dev_of(e) for e in kernels_ev)
+    names = {e.get("name") for e in events}
+    kev = [e for e in events if e.get("cat") == "kernel"]
+    busy = sum(e["dur"] for e in kev)
+    span = max(e["ts"] + e["dur"] for e in kev) - min(e["ts"] for e in kev)
+    log(f"  trace (utils.trace's trace.json, {len(names)} event names) of one log-mel fit + forward: {wall:.3f} ms of "
+        f"wall (profiler on), host operators' self time {host_us / 1e3:.3f} ms, {len(kernels_ev)} kernels' card time "
+        f"{dev_us / 1e3:.3f} ms; on the timeline {len(kev)} launches busy {busy / 1e3:.3f} ms of the "
+        f"{span / 1e3:.3f} ms from the first to the last: the card idle {1 - busy / span:.3f} of it")
+    for e in kernels_ev[:8]:
+        log(f"    {e.key[:80]:80s} card {dev_of(e) / 1e3:8.3f} ms, calls {e.count}")
+    require(set(spans) <= names, "the trace lacks the annotations")
+
+    # ---- native
+    t0 = time.perf_counter()
+    native_build.load()
+    log(f"  native library {native_build.lib_path()} loaded in {time.perf_counter() - t0:.2f} s (built at first use)")
+    stft_1 = T.STFT(n_fft=N_FFT, hop_length=HOP)
+    mag = stft_1.forward(audio[:1].mean(-2)).abs()[0]
+    mag_np = mag.cpu().numpy()
+    t0 = time.perf_counter()
+    ph = stft_1.pghi_exact(mag)
+    t_native = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ph_np = pghi_heap_numpy(mag_np, stft_1.gamma, N_FFT, HOP, stft_1._tol(None))
+    t_numpy = 1e3 * (time.perf_counter() - t0)
+    audible = mag_np > 1e-2 * mag_np.max()
+    d_ph = float(np.abs(ph.cpu().numpy() - ph_np)[audible].max())
+    same = np.array_equal(ph.cpu().numpy(), pghi_native.pghi(mag_np, stft_1.gamma, N_FFT, HOP, stft_1._tol(None)))
+    log(f"  pghi_exact on one {tuple(mag.shape)} clip: native heap {t_native:.1f} ms, numpy heap {t_numpy:.1f} ms "
+        f"(host clock); max phase difference on audible cells {d_ph:.3e} rad (tol 1e-3); the native call's: {same}")
+    require(tuple(mag.shape) == (L // HOP + 1, N_FFT // 2 + 1) and d_ph < 1e-3 and same, "pghi_exact on the host")
+    clips = audio.cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for i, c in enumerate(clips):
+            wavio_native.save_wav(os.path.join(tmp, "clip%03d.wav" % i), c, SR)
+        t_w = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = [wavio_native.load_wav(os.path.join(tmp, "clip%03d.wav" % i))[0] for i in range(len(clips))]
+        t_r = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data, names = utils.import_data(tmp, sr=SR)
+        t_i = time.perf_counter() - t0
+    same = all(np.array_equal(b, c) for b, c in zip(back, clips)) and np.array_equal(data, clips)
+    mb = clips.nbytes / 1e6
+    log(f"  WAV: {len(clips)} clips ({mb:.1f} MB float32) written in {t_w:.3f} s, read in {t_r:.3f} s, import_data "
+        f"of the directory {t_i:.3f} s (host clock, a warm file cache); bit-identical: {same}")
+    require(same and len(names) == len(clips), "the WAV round trip of the clips")
+    log(f"  phase 4l {time.perf_counter() - t_start:.1f} s")
+
+
 def sweep_phase(args, dev, mono, bank, off, scl, taps, kernels, bound_of, wrappers):
     """Phase 6: kernel T, A's factored design built up stage by stage.  Runs
     the floor sweep through its entry point at the main path's shape (its
@@ -3979,6 +4309,8 @@ def main() -> int:
     sinebank_regions_phase(dev, audio, mono, stream, (spectral, glstep, pghi_kernel, ss))
     # ----------------------------------------- 4k. serving and export
     serving_export_phase(args, dev, audio, stream, errs, counts)
+    # --------------------- 4l. the parallel layer, utils and native
+    parallel_phase(args, dev, audio, stream, errs)
 
     # ------------------------------------------------------------ 5. times
     log("[5] kernel times at the main-path shape (CUDA events around runs of "

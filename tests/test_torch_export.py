@@ -225,8 +225,15 @@ def test_export_program_int16_ingest():
 
 
 def test_export_program_refuses_shardings():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        export_program(lambda v: v, (torch.zeros(2),), in_shardings=object())
+    """``in_shardings`` (tests/test_torch_parallel.py exports and runs it on
+    4 ranks) refuses a polymorphic batch, as in JAX, and a batch that does
+    not divide over the mesh axis."""
+    from test_torch_common import Mesh4
+
+    with pytest.raises(ValueError, match="exclusive"):
+        export_program(lambda v: v, (torch.zeros(8, 2),), in_shardings=Mesh4(), polymorphic_batch=True)
+    with pytest.raises(ValueError, match="divisible by mesh axis 'data' size 4"):
+        export_program(lambda v: v, (torch.zeros(2, 2),), in_shardings=Mesh4())
 
 
 def test_registered_op_is_the_plain_version_on_the_cpu():

@@ -34,6 +34,12 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import acids_transforms_tpu_torch.tools.sweep_kernel_floor\n"
         "import acids_transforms_tpu_torch.serving, acids_transforms_tpu_torch.export\n"
         "import acids_transforms_tpu_torch.utils, acids_transforms_tpu_torch.utils.bucketing\n"
+        "import acids_transforms_tpu_torch.parallel, acids_transforms_tpu_torch.parallel.sharding\n"
+        "import acids_transforms_tpu_torch.utils.collectives, acids_transforms_tpu_torch.utils.debug\n"
+        "import acids_transforms_tpu_torch.utils.profiling, acids_transforms_tpu_torch.utils.misc\n"
+        "import acids_transforms_tpu_torch.native.build, acids_transforms_tpu_torch.native.pghi_native\n"
+        "import acids_transforms_tpu_torch.native.wavio_native\n"
+        "assert att.parallel.shard_map_batch and att.native.pghi_native and att.utils.record_collectives\n"
         "assert att.CompiledTransform is att.serving.CompiledTransform and att.load_program\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'jaxlib' or m.startswith('acids_transforms_tpu.') or m == 'acids_transforms_tpu']\n"

@@ -20,7 +20,7 @@ from acids_transforms_tpu.serving import CompiledTransform as JCompiledTransform
 from acids_transforms_tpu.serving import StreamingSession as JStreamingSession
 from acids_transforms_tpu_torch.serving import CompiledTransform, StreamingSession
 from acids_transforms_tpu_torch.utils import default_buckets, frame_mask, pad_to_bucket
-from test_torch_common import carry_over, rel, t2n
+from test_torch_common import Mesh4, carry_over, rel, t2n
 
 D = "cpu"
 RNG = np.random.default_rng(9)
@@ -281,10 +281,12 @@ def test_serving_ctor_contracts():
     with pytest.raises(ValueError, match="16384"):
         srv.forward(torch.zeros((2, 20000)))
     assert CompiledTransform(chain, batch_sizes=(1,)).buckets == default_buckets(max_seconds=30.0)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        CompiledTransform(chain, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        StreamingSession(chain, 1024, mesh=object())
+    # mesh= (tests/test_torch_parallel.py runs it on 4 ranks): the checks
+    # made before any rank is asked, on a mesh of 4 on its axis
+    with pytest.raises(ValueError, match="do not divide the mesh axis 'data'"):
+        CompiledTransform(chain, batch_sizes=(2, 4), mesh=Mesh4())
+    with pytest.raises(ValueError, match="batched session"):
+        StreamingSession(chain, 1024, mesh=Mesh4())
 
 
 def test_bucketing_utils_match_jax():

@@ -16,7 +16,7 @@ import torch
 import acids_transforms_tpu as jatt
 import acids_transforms_tpu_torch as patt
 from acids_transforms_tpu_torch.ops.cuda import spectral as pk
-from test_torch_common import HOP, N_FFT, carry_over, chains, make_audio, rel, t2n
+from test_torch_common import HOP, N_FFT, Mesh4, carry_over, chains, make_audio, rel, t2n
 
 TOL = 1e-4
 
@@ -190,8 +190,8 @@ def test_dispatch_gates_and_explicit_kernel_request():
         patt.fuse_forward(pc, backend="pallas")
     with pytest.raises(ValueError):
         patt.fuse_forward(pc, out_dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        patt.fuse_forward(pc, mesh=object())
+    with pytest.raises(ValueError, match="no axis 'seq'"):   # mesh= runs: tests/test_torch_parallel.py
+        patt.fuse_forward(pc, mesh=Mesh4(), shard_axis="seq")
     with pytest.raises(ValueError, match="window"):
         pk.fused_melspec(torch.zeros(1, 3000), N_FFT, HOP, taps=None)   # full-K needs the window
     with pytest.raises(ValueError, match="log"):

@@ -23,7 +23,7 @@ import acids_transforms_tpu_torch.transforms as PT
 from acids_transforms_tpu_torch import streaming as PS
 from acids_transforms_tpu_torch.convert import load_jax_state, load_jax_stream_state
 from acids_transforms_tpu_torch.ops.fft import rfft_frames
-from test_torch_common import make_audio, rel, t2n
+from test_torch_common import Mesh4, make_audio, rel, t2n
 
 SHAPES = [(512, 128), (256, 64)]
 CHUNK = 1024
@@ -328,8 +328,8 @@ def test_dispatch_contract():
     with pytest.raises(ValueError, match="unknown scan_invert backend"):
         PS.plan_invert(pc, (4, 40, 257), 8, backend="pallas")
     x = torch.as_tensor(signal(8))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        PS.scan_roundtrip(pc, x, CHUNK, mesh=object())
+    with pytest.raises(ValueError, match="batch axis"):   # mesh= runs: tests/test_torch_parallel.py
+        PS.scan_roundtrip(pc, x[0], CHUNK, mesh=Mesh4())
     # backend="fused" on the CPU runs the sessions' plain versions
     assert rel(t2n(PS.scan_roundtrip(pc, x, CHUNK, backend="fused")),
                t2n(PS.scan_roundtrip(pc, x, CHUNK))) <= 1e-5
