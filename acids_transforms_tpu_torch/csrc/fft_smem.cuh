@@ -30,6 +30,11 @@
 //       the synthesis of _session_pghi_gl_kernel's projection (O): frames_irfft
 //   stream_step.cu:gl_polish_fft_kernel            <- ops/pallas/stream_step.py:
 //       _session_pghi_gl_kernel's projections (O): frames_irfft, then frames_rfft
+// and, as the mixed-radix route (template argument kSmooth = true) where
+// fft_covers_smooth() takes n_fft (even, 2^a 3^b 5^c, 64 to 4096, no power of
+// two: 1200, 960, 768, 400, 1920, ...), in R, the magnitude encode of N, L and
+// M only (session_encode_kernel<., true, true>, session_roundtrip_fft_kernel<.,
+// true>); every other kernel keeps its product route at those sizes.
 //
 // What they compute.  frames_rfft: X_r[k] = sum_n w[n] xs[r hop + n] e^{-2 pi
 // i n k / n} for k <= n / 2 of every frame r < n_frames of a sample buffer
@@ -113,6 +118,43 @@
 //   forward FFT, the split (and the caller's change of the bins) and the
 //   pack write exactly the places they read, so the inverse follows with
 //   no barrier beyond the team's.
+//
+// The mixed-radix route (kSmooth).  The same pairs, split, pack, inverse and
+// class order; what differs:
+// * the stages: Stockham auto-sort over the radices of fft_smooth_plan
+//   (fives, threes, fours, then a two when log2 of n's power of two is odd;
+//   ops/cuda/frames_fft.py:fft_radices), one stage per trip: stage radix r,
+//   stride s: butterfly b < n / r reads x[b + k n / r], takes the length-r
+//   DFT (fft_dft: radix 3 and 5 with constants rounded once from float64,
+//   kR3S .. kR5S2) and writes y[r (b - q) + q + s k] (q = b mod s), outputs
+//   1 .. r - 1 turned by the table's entries k (b - q); the last stage has b
+//   - q = 0 for every butterfly, so it turns nothing and writes where it
+//   reads.  1200 = 5 5 3 4 4: five trips.
+// * out of place: the stages alternate between the team's buffer (re, im)
+//   and a second half (re2, im2), one team barrier a stage, a butterfly at a
+//   time in registers; the last stage runs in place when the others are
+//   even in number, so the result lands in (re, im) as the in-place
+//   power-of-two passes leave it.  Why not in place: a thread would hold a
+//   stage's inputs (up to 20 values) through a barrier, which spilled
+//   364-1288 B at 128 registers and made R 1.6x slower at 1200/300 (H100).
+// * the team: the least power of two G of threads at or above n / 16
+//   (fft_smooth_team_threads: 128 at 1200 and 1920, 64 at 960 and 768), so
+//   that teams tile warps and the named barriers count whole warps, and a
+//   thread owns 8 to 16 of a pair's values; a stage's n / r butterflies go round the
+//   team (b = j + u G), the lanes past n / r idle in the last round.
+// * the buffer: no swizzle (n is no multiple of 32, and the XOR of fft_swz
+//   would leave the buffer).  The reads x[b + k n / r] are contiguous across
+//   a warp's lanes; the odd radices run first, where their stride-r writes
+//   (s = 1) fall on distinct banks for r = 3, 5; the later strides' writes
+//   mix runs of s lanes: at 1200 the writes of stages 2-4 are 1.88, 2.15
+//   and 1.30 ways on average, 3 at most (counted from the address pattern:
+//   tools/fft_bank_conflicts.py).  Teams that share a warp start G banks
+//   apart.
+// * the twiddle table: j < fft_smooth_table(n), the largest k (b - q) + 1 of
+//   a stage before the last ((r - 1)(n / r - s) + 1: 957 at 1200).
+// * the inverse's 1 / n rounds (n is no power of two): it is folded into
+//   wsyn by the caller, rounded once from float64 (frames_fft.irfft_window(
+//   smooth=True)), and the plain version reads the same table.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -144,28 +186,113 @@ __host__ __device__ inline size_t fft_smem_floats(int n, int teams) {
     return (size_t)n + 2 * (size_t)(3 * n / 4) + (size_t)teams * fft_buf_floats(n);
 }
 
-struct FftSmem {
-    float* win;  // [n]
-    float* twr;  // [3 n / 4]  cos(2 pi j / n)
-    float* twi;  // [3 n / 4] -sin(2 pi j / n)
-    float* buf;  // [teams][fft_buf_floats(n)]
+// ---- the mixed-radix route's rule, plan and layout (frames_fft.py twins)
+
+// sin(pi / 3); cos(2 pi / 5), cos(4 pi / 5), sin(2 pi / 5), sin(4 pi / 5):
+// float64 rounded once (frames_fft.SMOOTH_CONSTANTS)
+constexpr float kR3S = 0x1.bb67aep-1f;
+constexpr float kR5C1 = 0x1.3c6ef4p-2f;
+constexpr float kR5C2 = -0x1.9e377ap-1f;
+constexpr float kR5S1 = 0x1.e6f0e2p-1f;
+constexpr float kR5S2 = 0x1.2cf230p-1f;
+
+__host__ __device__ inline bool fft_covers_smooth(int n) {
+    if (n < kFftMin || n > kFftMax || (n & 1) || (n & (n - 1)) == 0) return false;
+    while (n % 2 == 0) n /= 2;
+    while (n % 3 == 0) n /= 3;
+    while (n % 5 == 0) n /= 5;
+    return n == 1;
+}
+
+// fives, threes, fours, then a two (frames_fft.fft_radices)
+struct FftPlan {
+    int n5, n3, n4, n2;
 };
 
+__host__ __device__ inline FftPlan fft_smooth_plan(int n) {
+    FftPlan p = {0, 0, 0, 0};
+    while (n % 5 == 0) { ++p.n5; n /= 5; }
+    while (n % 3 == 0) { ++p.n3; n /= 3; }
+    while (n % 4 == 0) { ++p.n4; n /= 4; }
+    if (n == 2) p.n2 = 1;
+    return p;
+}
+
+// the least power of two G with n / G <= 16 (8 to 16 values a thread)
+__host__ __device__ inline int fft_smooth_team_threads(int n) {
+    int g = 1;
+    while (16 * g < n) g *= 2;
+    return g;
+}
+
+__host__ __device__ inline int fft_smooth_max_teams(int n) { return kThreads / fft_smooth_team_threads(n); }
+
+// twiddle entries the stages read: max (r - 1)(n / r - s) + 1 before the last stage
+__host__ __device__ inline int fft_smooth_table(int n) {
+    const FftPlan p = fft_smooth_plan(n);
+    const int n_st = p.n5 + p.n3 + p.n4 + p.n2;
+    int s = 1, out = 1, st = 0;
+    auto stage = [&](int r) {
+        if (st < n_st - 1) {
+            const int e = (r - 1) * (n / r - s) + 1;
+            out = e > out ? e : out;
+        }
+        s *= r;
+        ++st;
+    };
+    for (int i = 0; i < p.n5; ++i) stage(5);
+    for (int i = 0; i < p.n3; ++i) stage(3);
+    for (int i = 0; i < p.n4; ++i) stage(4);
+    for (int i = 0; i < p.n2; ++i) stage(2);
+    return out;
+}
+
+// re and im of n values, then the stages' second half (re2, im2); teams
+// sharing a warp start G banks apart
+__host__ __device__ inline int fft_smooth_buf_floats(int n) {
+    const int g = fft_smooth_team_threads(n);
+    return 4 * n + (g < 32 ? (((g - 4 * n) % 32) + 32) % 32 : 0);
+}
+
+__host__ __device__ inline size_t fft_smooth_smem_floats(int n, int teams) {
+    return (size_t)n + 2 * (size_t)fft_smooth_table(n) + (size_t)teams * fft_smooth_buf_floats(n);
+}
+
+template <bool kSmooth>
+__host__ __device__ inline int fft_buf_floats_of(int n) {
+    return kSmooth ? fft_smooth_buf_floats(n) : fft_buf_floats(n);
+}
+
+// the FFT area of the route n takes: fft_covers(n), else the mixed-radix one
+__host__ __device__ inline size_t fft_area_floats(int n, int teams) {
+    return fft_covers(n) ? fft_smem_floats(n, teams) : fft_smooth_smem_floats(n, teams);
+}
+
+struct FftSmem {
+    float* win;  // [n]
+    float* twr;  // [3 n / 4]  cos(2 pi j / n)  (kSmooth: [fft_smooth_table(n)])
+    float* twi;  // [3 n / 4] -sin(2 pi j / n)
+    float* buf;  // [teams][fft_buf_floats(n)]  (kSmooth: fft_smooth_buf_floats)
+};
+
+template <bool kSmooth = false>
 __device__ __forceinline__ FftSmem carve_fft(float* base, int n) {
+    const int nt = kSmooth ? fft_smooth_table(n) : 3 * n / 4;
     FftSmem s;
     s.win = base;
     s.twr = s.win + n;
-    s.twi = s.twr + 3 * n / 4;
-    s.buf = s.twi + 3 * n / 4;
+    s.twi = s.twr + nt;
+    s.buf = s.twi + nt;
     return s;
 }
 
 // The window (n floats) and the twiddle table ((2, n) floats: cos, -sin) from
 // device memory into shared memory.  No barrier: frames_rfft starts with one.
+template <bool kSmooth = false>
 static __device__ void fft_stage(const float* __restrict__ window, const float* __restrict__ tw,
                                  FftSmem s, int n) {
     for (int i = threadIdx.x; i < n; i += kThreads) s.win[i] = __ldg(window + i);
-    const int nt = 3 * n / 4;
+    const int nt = kSmooth ? fft_smooth_table(n) : 3 * n / 4;
     for (int i = threadIdx.x; i < nt; i += kThreads) {
         s.twr[i] = __ldg(tw + i);
         s.twi[i] = __ldg(tw + n + i);
@@ -180,6 +307,16 @@ static __device__ void fft_stage(const float* __restrict__ window, const float* 
 __device__ __forceinline__ int fft_swz(int i) {
     const int B = i >> 5;
     return i ^ ((B & 15) | ((B & 8) << 1));
+}
+
+// where value i of a team's buffer lives on the route: swizzled, or in place
+template <bool kSmooth>
+__device__ __forceinline__ int fft_idx(int i) {
+    if constexpr (kSmooth) {
+        return i;
+    } else {
+        return fft_swz(i);
+    }
 }
 
 __device__ __forceinline__ void fft_team_sync(int team, int G) {
@@ -227,25 +364,27 @@ struct FftTeam {
     bool has_team;
 };
 
+template <bool kSmooth = false>
 __device__ __forceinline__ FftTeam fft_team(const FftSmem& s, int n, int teams) {
     FftTeam t;
-    t.G = fft_team_threads(n);
+    t.G = kSmooth ? fft_smooth_team_threads(n) : fft_team_threads(n);
     t.team = threadIdx.x / t.G;
     t.j = threadIdx.x - t.team * t.G;
     t.has_team = t.team < teams;
-    t.re = s.buf + (size_t)(t.has_team ? t.team : 0) * fft_buf_floats(n);
+    t.re = s.buf + (size_t)(t.has_team ? t.team : 0) * fft_buf_floats_of<kSmooth>(n);
     t.im = t.re + n;
     return t;
 }
 
 // The windowed frames x0 (and x1 when `two`, else zeros) into the team's
 // buffer as re and im.
+template <bool kSmooth = false>
 __device__ __forceinline__ void fft_load_pair(const FftTeam& t, const float* x0, const float* x1,
                                               bool two, int n, const FftSmem& s) {
     for (int i = t.j; i < n; i += t.G) {
         const float w = s.win[i];
-        t.re[fft_swz(i)] = __fmul_rn(w, x0[i]);
-        t.im[fft_swz(i)] = two ? __fmul_rn(w, x1[i]) : 0.0f;
+        t.re[fft_idx<kSmooth>(i)] = __fmul_rn(w, x0[i]);
+        t.im[fft_idx<kSmooth>(i)] = two ? __fmul_rn(w, x1[i]) : 0.0f;
     }
 }
 
@@ -354,11 +493,171 @@ __device__ __forceinline__ void fft_passes(const FftTeam& t, bool active, int n,
     }
 }
 
+// The length-R DFT (e^{-2 pi i j k / R}) of (r[k], i[k]), k < R, in place, in
+// the float32 operations of frames_fft._dft.
+template <int R>
+__device__ __forceinline__ void fft_dft(float (&r)[R], float (&i)[R]) {
+    if constexpr (R == 2) {
+        const float ar = r[0], ai = i[0];
+        r[0] = __fadd_rn(ar, r[1]);
+        i[0] = __fadd_rn(ai, i[1]);
+        r[1] = __fsub_rn(ar, r[1]);
+        i[1] = __fsub_rn(ai, i[1]);
+    } else if constexpr (R == 4) {
+        const float apc_r = __fadd_rn(r[0], r[2]), apc_i = __fadd_rn(i[0], i[2]);
+        const float amc_r = __fsub_rn(r[0], r[2]), amc_i = __fsub_rn(i[0], i[2]);
+        const float bpd_r = __fadd_rn(r[1], r[3]), bpd_i = __fadd_rn(i[1], i[3]);
+        const float bmd_r = __fsub_rn(r[1], r[3]), bmd_i = __fsub_rn(i[1], i[3]);
+        // -i (b - d) = (bmd_i, -bmd_r)
+        r[0] = __fadd_rn(apc_r, bpd_r);
+        i[0] = __fadd_rn(apc_i, bpd_i);
+        r[1] = __fadd_rn(amc_r, bmd_i);
+        i[1] = __fsub_rn(amc_i, bmd_r);
+        r[2] = __fsub_rn(apc_r, bpd_r);
+        i[2] = __fsub_rn(apc_i, bpd_i);
+        r[3] = __fsub_rn(amc_r, bmd_i);
+        i[3] = __fadd_rn(amc_i, bmd_r);
+    } else if constexpr (R == 3) {
+        // y0 = x0 + t, y1,2 = (x0 - t / 2) -+ i sin(pi/3) (x1 - x2), t = x1 + x2
+        const float tr = __fadd_rn(r[1], r[2]), ti = __fadd_rn(i[1], i[2]);
+        const float ar = __fsub_rn(r[0], __fmul_rn(tr, 0.5f)), ai = __fsub_rn(i[0], __fmul_rn(ti, 0.5f));
+        const float br = __fmul_rn(__fsub_rn(r[1], r[2]), kR3S), bi = __fmul_rn(__fsub_rn(i[1], i[2]), kR3S);
+        r[0] = __fadd_rn(r[0], tr);
+        i[0] = __fadd_rn(i[0], ti);
+        r[1] = __fadd_rn(ar, bi);
+        i[1] = __fsub_rn(ai, br);
+        r[2] = __fsub_rn(ar, bi);
+        i[2] = __fadd_rn(ai, br);
+    } else {
+        static_assert(R == 5, "radix 2, 3, 4 or 5");
+        const float s1r = __fadd_rn(r[1], r[4]), s1i = __fadd_rn(i[1], i[4]);
+        const float d1r = __fsub_rn(r[1], r[4]), d1i = __fsub_rn(i[1], i[4]);
+        const float s2r = __fadd_rn(r[2], r[3]), s2i = __fadd_rn(i[2], i[3]);
+        const float d2r = __fsub_rn(r[2], r[3]), d2i = __fsub_rn(i[2], i[3]);
+        const float a1r = __fadd_rn(__fadd_rn(r[0], __fmul_rn(s1r, kR5C1)), __fmul_rn(s2r, kR5C2));
+        const float a1i = __fadd_rn(__fadd_rn(i[0], __fmul_rn(s1i, kR5C1)), __fmul_rn(s2i, kR5C2));
+        const float a2r = __fadd_rn(__fadd_rn(r[0], __fmul_rn(s1r, kR5C2)), __fmul_rn(s2r, kR5C1));
+        const float a2i = __fadd_rn(__fadd_rn(i[0], __fmul_rn(s1i, kR5C2)), __fmul_rn(s2i, kR5C1));
+        const float b1r = __fadd_rn(__fmul_rn(d1r, kR5S1), __fmul_rn(d2r, kR5S2));
+        const float b1i = __fadd_rn(__fmul_rn(d1i, kR5S1), __fmul_rn(d2i, kR5S2));
+        const float b2r = __fsub_rn(__fmul_rn(d1r, kR5S2), __fmul_rn(d2r, kR5S1));
+        const float b2i = __fsub_rn(__fmul_rn(d1i, kR5S2), __fmul_rn(d2i, kR5S1));
+        // y1,4 = a1 -+ i b1, y2,3 = a2 -+ i b2
+        r[0] = __fadd_rn(__fadd_rn(r[0], s1r), s2r);
+        i[0] = __fadd_rn(__fadd_rn(i[0], s1i), s2i);
+        r[1] = __fadd_rn(a1r, b1i);
+        i[1] = __fsub_rn(a1i, b1r);
+        r[2] = __fadd_rn(a2r, b2i);
+        i[2] = __fsub_rn(a2i, b2r);
+        r[3] = __fsub_rn(a2r, b2i);
+        i[3] = __fadd_rn(a2i, b2r);
+        r[4] = __fsub_rn(a1r, b1i);
+        i[4] = __fadd_rn(a1i, b1r);
+    }
+}
+
+// One mixed-radix stage of radix R and stride s (see the note above): every
+// butterfly b < n / R of the team reads (sr, si) at b + k n / R and writes
+// (dr, di) at R (b - q) + q + s k (q = b mod s), outputs 1 .. R - 1 turned;
+// the last stage (b - q = 0) turns nothing and writes where it reads, so it
+// may run in place.  A butterfly at a time; no barrier (the caller's).
+template <int R>
+__device__ __forceinline__ void fft_smooth_stage(const float* sr, const float* si, float* dr, float* di, int n,
+                                                 int s, bool last, int j, int G, const FftSmem& sm) {
+    const int nb = n / R;
+    for (int b = j; b < nb; b += G) {
+        float vr[R], vi[R];
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+            vr[k] = sr[b + k * nb];
+            vi[k] = si[b + k * nb];
+        }
+        fft_dft<R>(vr, vi);
+        if (last) {
+#pragma unroll
+            for (int k = 0; k < R; ++k) {
+                dr[b + k * nb] = vr[k];
+                di[b + k * nb] = vi[k];
+            }
+        } else {
+            const int q = b % s;
+            const int tq = b - q;
+#pragma unroll
+            for (int k = 1; k < R; ++k) {
+                const float wr = sm.twr[k * tq], wi = sm.twi[k * tq];
+                const float ur = vr[k], ui = vi[k];
+                vr[k] = __fsub_rn(__fmul_rn(ur, wr), __fmul_rn(ui, wi));
+                vi[k] = __fadd_rn(__fmul_rn(ur, wi), __fmul_rn(ui, wr));
+            }
+            const int o = R * tq + q;
+#pragma unroll
+            for (int k = 0; k < R; ++k) {
+                dr[o + k * s] = vr[k];
+                di[o + k * s] = vi[k];
+            }
+        }
+    }
+}
+
+// The stages run between the team's two halves, (re, im) and (re2, im2), a
+// team barrier after each; the last one in place when the others are even
+// in number, so that the result always lands in (re, im), where the stages
+// started (as the power-of-two route's in-place passes leave it).
+struct FftPingPong {
+    float *cr, *ci, *nr, *ni;
+    int st, n_st, stride;
+};
+
+template <int R>
+__device__ __forceinline__ void fft_smooth_step(FftPingPong& pp, const FftTeam& t, bool active, int n,
+                                                const FftSmem& s) {
+    const bool last = pp.st == pp.n_st - 1;
+    const bool in_place = last && (pp.n_st - 1) % 2 == 0;
+    if (active) {
+        fft_smooth_stage<R>(pp.cr, pp.ci, in_place ? pp.cr : pp.nr, in_place ? pp.ci : pp.ni, n, pp.stride, last,
+                            t.j, t.G, s);
+    }
+    if (!in_place) {
+        float* r = pp.cr;
+        float* i = pp.ci;
+        pp.cr = pp.nr;
+        pp.ci = pp.ni;
+        pp.nr = r;
+        pp.ni = i;
+    }
+    fft_team_sync(t.team, t.G);
+    ++pp.st;
+    pp.stride *= R;
+}
+
+// The mixed-radix forward complex FFT of the team's buffer (re, im), natural
+// order, the result in (re, im); barriers as fft_passes'.
+__device__ __forceinline__ void fft_passes_smooth(const FftTeam& t, bool active, int n, const FftSmem& s) {
+    const FftPlan p = fft_smooth_plan(n);
+    FftPingPong pp = {t.re, t.im, t.im + n, t.im + 2 * n, 0, p.n5 + p.n3 + p.n4 + p.n2, 1};
+    fft_team_sync(t.team, t.G);
+    for (int i = 0; i < p.n5; ++i) fft_smooth_step<5>(pp, t, active, n, s);
+    for (int i = 0; i < p.n3; ++i) fft_smooth_step<3>(pp, t, active, n, s);
+    for (int i = 0; i < p.n4; ++i) fft_smooth_step<4>(pp, t, active, n, s);
+    if (p.n2) fft_smooth_step<2>(pp, t, active, n, s);
+}
+
+template <bool kSmooth>
+__device__ __forceinline__ void fft_passes_of(const FftTeam& t, bool active, int n, const FftSmem& s) {
+    if constexpr (kSmooth) {
+        fft_passes_smooth(t, active, n, s);
+    } else {
+        fft_passes(t, active, n, s);
+    }
+}
+
 // The two real spectra at bin k of the FFT Z of a pair in the team's buffer:
 // X_0[k] = (Z[k] + conj Z[n-k]) / 2, X_1[k] = (Z[k] - conj Z[n-k]) / 2i.
+template <bool kSmooth = false>
 __device__ __forceinline__ void fft_split(const FftTeam& t, int k, int n, float& ar, float& ai,
                                           float& br, float& bi) {
-    const int ia = fft_swz(k), ib = fft_swz((n - k) & (n - 1));
+    const int ia = fft_idx<kSmooth>(k);
+    const int ib = kSmooth ? (k == 0 ? 0 : n - k) : fft_swz((n - k) & (n - 1));
     const float a = t.re[ia], b = t.im[ia], c = t.re[ib], d = t.im[ib];
     ar = __fmul_rn(__fadd_rn(a, c), 0.5f);
     ai = __fmul_rn(__fsub_rn(b, d), 0.5f);
@@ -374,11 +673,13 @@ __device__ __forceinline__ void fft_split(const FftTeam& t, int k, int n, float&
 // the twiddles must have been staged into s (fft_stage) and the samples
 // written to xs before the call: it starts with a barrier.  It ends with one,
 // so what emit wrote to shared memory is readable on return.
-template <typename Emit>
+// kSmooth: the mixed-radix route (fft_covers_smooth(n)), twiddles staged by
+// fft_stage<true> into an area carved by carve_fft<true>.
+template <bool kSmooth = false, typename Emit>
 __device__ void frames_rfft(const float* xs, int n_frames, int hop, int n, FftSmem s, int teams,
                             Emit emit, int stride = 1) {
     __syncthreads();
-    const FftTeam t = fft_team(s, n, teams);
+    const FftTeam t = fft_team<kSmooth>(s, n, teams);
     const int half = n >> 1;
     const int n_pairs = ((n_frames - 1) / (2 * stride) + 1) * stride;
     const int n_rounds = (n_pairs + teams - 1) / teams;
@@ -389,12 +690,12 @@ __device__ void frames_rfft(const float* xs, int n_frames, int hop, int n, FftSm
         const int r1 = r0 + stride;
         const bool active = t.has_team && p < n_pairs && r0 < n_frames;
         const bool two = r1 < n_frames;
-        if (active) fft_load_pair(t, xs + (size_t)r0 * hop, xs + (size_t)r1 * hop, two, n, s);
-        fft_passes(t, active, n, s);
+        if (active) fft_load_pair<kSmooth>(t, xs + (size_t)r0 * hop, xs + (size_t)r1 * hop, two, n, s);
+        fft_passes_of<kSmooth>(t, active, n, s);
         if (active) {  // split the pair
             for (int k = t.j; k <= half; k += t.G) {
                 float ar, ai, br, bi;
-                fft_split(t, k, n, ar, ai, br, bi);
+                fft_split<kSmooth>(t, k, n, ar, ai, br, bi);
                 emit(r0, k, ar, ai);
                 if (two) emit(r1, k, br, bi);
             }
@@ -415,12 +716,12 @@ __device__ void frames_rfft(const float* xs, int n_frames, int hop, int n, FftSm
 // emit(r, i, v) of both frames' samples v = wsyn[i] Re / Im of conj(FFT(conj
 // Z)).  spec may read the buffer at k and n - k: the thread that packs bin k
 // writes exactly those two places.
-template <typename Prep, typename Spec, typename Emit>
+template <bool kSmooth = false, typename Prep, typename Spec, typename Emit>
 __device__ void frames_irfft_classes(int n_frames, int stride, int n, const FftSmem& s,
                                      const float* wsyn, int teams, Prep prep, Spec spec,
                                      Emit emit) {
     __syncthreads();
-    const FftTeam t = fft_team(s, n, teams);
+    const FftTeam t = fft_team<kSmooth>(s, n, teams);
     const int half = n >> 1;
     for (int c = 0; c < stride; ++c) {
         const int n_pairs = c < n_frames ? (n_frames - 1 - c) / (2 * stride) + 1 : 0;
@@ -436,12 +737,12 @@ __device__ void frames_irfft_classes(int n_frames, int stride, int n, const FftS
                 for (int k = t.j; k <= half; k += t.G) {
                     float ar, ai, br, bi;
                     spec(t, r0, r1, two, k, ar, ai, br, bi);
-                    const int ia = fft_swz(k);
+                    const int ia = fft_idx<kSmooth>(k);
                     if (k == 0 || k == half) {
                         t.re[ia] = ar;
                         t.im[ia] = -br;
                     } else {
-                        const int ib = fft_swz(n - k);
+                        const int ib = fft_idx<kSmooth>(n - k);
                         t.re[ia] = __fsub_rn(ar, bi);
                         t.im[ia] = -__fadd_rn(ai, br);
                         t.re[ib] = __fadd_rn(ar, bi);
@@ -449,10 +750,10 @@ __device__ void frames_irfft_classes(int n_frames, int stride, int n, const FftS
                     }
                 }
             }
-            fft_passes(t, active, n, s);
+            fft_passes_of<kSmooth>(t, active, n, s);
             if (active) {
                 for (int i = t.j; i < n; i += t.G) {
-                    const int idx = fft_swz(i);
+                    const int idx = fft_idx<kSmooth>(i);
                     const float w = wsyn[i];
                     emit(r0, i, __fmul_rn(w, t.re[idx]));
                     if (two) emit(r1, i, -__fmul_rn(w, t.im[idx]));
@@ -497,19 +798,19 @@ __device__ void frames_irfft(int n_frames, int stride, int n, FftSmem s, const f
 // pairs are frames_rfft's with this stride, so the plain version is
 // frames_rfft_reference and frames_irfft_reference with it.  Barriers as
 // frames_irfft's; xs written before the call.
-template <typename Modify, typename Emit>
+template <bool kSmooth = false, typename Modify, typename Emit>
 __device__ void frames_roundtrip(const float* xs, int n_frames, int hop, int n, FftSmem s,
                                  const float* wsyn, int stride, int teams, Modify modify,
                                  Emit emit) {
-    frames_irfft_classes(
+    frames_irfft_classes<kSmooth>(
         n_frames, stride, n, s, wsyn, teams,
         [&](const FftTeam& t, bool active, int r0, int r1, bool two) {
-            if (active) fft_load_pair(t, xs + (size_t)r0 * hop, xs + (size_t)r1 * hop, two, n, s);
-            fft_passes(t, active, n, s);
+            if (active) fft_load_pair<kSmooth>(t, xs + (size_t)r0 * hop, xs + (size_t)r1 * hop, two, n, s);
+            fft_passes_of<kSmooth>(t, active, n, s);
         },
         [&](const FftTeam& t, int r0, int r1, bool two, int k, float& ar, float& ai, float& br,
             float& bi) {
-            fft_split(t, k, n, ar, ai, br, bi);
+            fft_split<kSmooth>(t, k, n, ar, ai, br, bi);
             modify(r0, k, ar, ai);
             if (two) {
                 modify(r1, k, br, bi);

@@ -9,6 +9,8 @@
 //                                    <- _session_kernel                (make_fused_roundtrip)
 //   session_roundtrip_fft_kernel<1>, session_roundtrip_kernel<., 1>
 //                                    <- _session_random_kernel         (make_fused_random_roundtrip)
+//   (the encodes' and the roundtrips' kSmooth instances: the same four on the
+//   mixed-radix route, where fft_covers_smooth(n_fft): 1200, 960, 768, ...)
 //   session_decode_kernel<., false>  <- _session_random_invert_kernel  (make_fused_random_invert;
 //                                       also the synthesis of the RT-PGHI sessions N and Q, with
 //                                       the recurrence's phases as its angles)
@@ -42,8 +44,11 @@
 // |X| = sqrt(re^2 + im^2) instead (float32, no complex pass).  Where
 // fft_covers(n_fft) (a power of two from 64 to 4096) the encode computes the
 // DFT with fft_smem.cuh:frames_rfft (the FFT route); other shapes keep the
-// product below (the product route).  The roundtrips likewise: where
-// fft_covers(n_fft), fft_smem.cuh:frames_roundtrip (each frame pair's
+// product below (the product route); where fft_covers_smooth(n_fft) (even,
+// 2^a 3^b 5^c, 64 to 4096, no power of two) with frames_rfft's mixed-radix
+// instance (the smooth route: session_encode_kernel<., true, true>).  The
+// roundtrips likewise: where fft_covers(n_fft), or on the smooth route
+// where fft_covers_smooth(n_fft), fft_smem.cuh:frames_roundtrip (each frame pair's
 // forward FFT, its bins, its inverse FFT in one team's buffer, the synthesis
 // overlap-added into the block's output chunks in class order); elsewhere the
 // products: the analysis of the R + overlap - 1 frames that cover a block's R
@@ -275,9 +280,10 @@ __host__ __device__ inline size_t encode_smem_floats(int rows, int hop, int Kn) 
     return (size_t)(rows - 1) * hop + Kn + kStageFloats;
 }
 
-// The encode's FFT route: the samples of `rows` frames, then frames_rfft's area.
+// The encode's FFT and smooth routes: the samples of `rows` frames, then
+// frames_rfft's area (that of the route n_fft takes).
 __host__ __device__ inline size_t encode_fft_smem_floats(int rows, int hop, int n_fft, int teams) {
-    return (size_t)(rows - 1) * hop + n_fft + fft_smem_floats(n_fft, teams);
+    return (size_t)(rows - 1) * hop + n_fft + fft_area_floats(n_fft, teams);
 }
 
 __host__ __device__ inline size_t roundtrip_smem_floats(int rows, int overlap, int hop, int Kn,
@@ -286,12 +292,13 @@ __host__ __device__ inline size_t roundtrip_smem_floats(int rows, int overlap, i
     return (size_t)(n_rows - 1) * hop + Kn + (size_t)n_rows * Kp + kStageFloats;
 }
 
-// The roundtrips' FFT route: the samples of rows + 2 overlap frames, the output
-// chunks, frames_rfft's area and the synthesis window.
+// The roundtrips' FFT and smooth routes: the samples of rows + 2 overlap
+// frames, the output chunks, frames_rfft's area (that of the route n takes)
+// and the synthesis window.
 __host__ __device__ inline size_t roundtrip_fft_smem_floats(int rows, int overlap, int hop,
                                                             int teams) {
     const int n = overlap * hop;
-    return (size_t)(rows + 2 * overlap - 1) * hop + n + (size_t)rows * hop + fft_smem_floats(n, teams) +
+    return (size_t)(rows + 2 * overlap - 1) * hop + n + (size_t)rows * hop + fft_area_floats(n, teams) +
            (size_t)n;
 }
 
@@ -305,8 +312,9 @@ __host__ __device__ inline size_t decode_smem_floats(int rows, int overlap, int 
 // (frames_rfft over the block's frames, pairs (2j, 2j + 1) of the block, rows
 // even, so of the session too), at most 128 registers a thread so that two
 // blocks share an SM (79 KB of shared memory each at 1024/256: 32 frames, 4
-// FFTs side by side); otherwise the product route.
-template <bool kMag, bool kFft>
+// FFTs side by side); with kSmooth its mixed-radix instance (74 KB at
+// 1200/300: 16 frames, 2 FFTs of 128 threads); otherwise the product route.
+template <bool kMag, bool kFft, bool kSmooth = false>
 __global__ void __launch_bounds__(kThreads, kFft ? 2 : 1) session_encode_kernel(SessionArgs a) {
     extern __shared__ __align__(16) float smem[];
     const long long blk = blockIdx.x;
@@ -319,15 +327,15 @@ __global__ void __launch_bounds__(kThreads, kFft ? 2 : 1) session_encode_kernel(
     float* work = xs + (size_t)(a.rows - 1) * a.hop + klen;  // 16-byte aligned: hop % 4 == 0
     FftSmem fs = {};
     if constexpr (kFft) {
-        fs = carve_fft(work, n_fft);
-        fft_stage(a.win, a.fft_tw, fs, n_fft);  // load_session_samples' barrier covers it
+        fs = carve_fft<kSmooth>(work, n_fft);
+        fft_stage<kSmooth>(a.win, a.fft_tw, fs, n_fft);  // load_session_samples' barrier covers it
     }
     load_session_samples(a.x + (size_t)b * a.L, a.L, (long long)t0 * a.hop,
                          (a.overlap - 1) * a.hop, (n_rows - 1) * a.hop + klen, xs);
     const int F = a.F;
     auto analysis = [&](auto emit) {
         if constexpr (kFft) {
-            frames_rfft(xs, n_rows, a.hop, n_fft, fs, a.teams, emit);
+            frames_rfft<kSmooth>(xs, n_rows, a.hop, n_fft, fs, a.teams, emit);
         } else {
             fullk_analysis(xs, n_rows, a.hop, a.Kn, F, a.wc, a.ws, work, emit);
         }
@@ -399,7 +407,10 @@ __global__ void __launch_bounds__(kThreads) session_roundtrip_kernel(SessionArgs
 // before 0 are zero (M: |X| (cos, sin)(angle) of the others), and their
 // samples are not added; the others are added into the block's output chunks
 // in class order, and the chunks stored.  Two blocks an SM at 1024/256.
-template <bool kRandom>
+// kSmooth: the mixed-radix instance (fft_covers_smooth(n_fft); 16 chunks, 2
+// FFTs of 128 threads, 107 KB, two blocks an SM at 1200/300; plan
+// frames_fft.class_plan_smooth).
+template <bool kRandom, bool kSmooth = false>
 __global__ void __launch_bounds__(kThreads, 2) session_roundtrip_fft_kernel(SessionArgs a) {
     extern __shared__ __align__(16) float smem[];
     const int m = a.overlap - 1, F = a.F, hop = a.hop, ov = a.overlap, T = a.T;
@@ -411,9 +422,9 @@ __global__ void __launch_bounds__(kThreads, 2) session_roundtrip_fft_kernel(Sess
     const int n_frames = min(a.rows + 2 * ov, T + m - j0);
     float* xs = smem;                                            // frames' samples
     float* out = xs + (size_t)(a.rows + 2 * ov - 1) * hop + n;   // [rows][hop]
-    const FftSmem fs = carve_fft(out + (size_t)a.rows * hop, n);
-    float* wsyn = fs.buf + (size_t)a.teams * fft_buf_floats(n);
-    fft_stage(a.win, a.fft_tw, fs, n);
+    const FftSmem fs = carve_fft<kSmooth>(out + (size_t)a.rows * hop, n);
+    float* wsyn = fs.buf + (size_t)a.teams * fft_buf_floats_of<kSmooth>(n);
+    fft_stage<kSmooth>(a.win, a.fft_tw, fs, n);
     for (int i = threadIdx.x; i < n; i += kThreads) wsyn[i] = __ldg(a.wsyn + i);
     for (int i = threadIdx.x; i < a.rows * hop; i += kThreads) out[i] = 0.0f;
     // frame f reads x[(f - m) hop, ..): local frame 0 starts 2 m hop before j0 hop
@@ -422,7 +433,7 @@ __global__ void __launch_bounds__(kThreads, 2) session_roundtrip_fft_kernel(Sess
     const int f0 = j0 - m;
     const float* ang = kRandom ? a.angles + (size_t)b * a.Ta * F : nullptr;
     const int n_out = (j_end - j0) * hop;
-    frames_roundtrip(
+    frames_roundtrip<kSmooth>(
         xs, n_frames, hop, n, fs, wsyn, ov, a.teams,
         [&](int r, int k, float& re, float& im) {
             const int f = f0 + r;
@@ -751,9 +762,10 @@ long long att_gl_polish_smem_bytes(int Tp, int hop, int n_fft, int teams, int re
 // Kernel R (magnitude = 0) and the magnitude encode.  x (B, L) float32; out
 // (B, T, F, 2), or (B, T, F) for the magnitude, every element written; hop a
 // multiple of 4.  teams > 0 selects the FFT route: n_fft = overlap hop must be
-// a power of two from 64 to 4096, window (n_fft,) and fft_tw (2, n_fft) =
-// (cos, -sin)(2 pi j / n_fft), 1 <= teams <= 8192 / n_fft, rows even; wc / ws
-// and Kn are not read.  teams == 0 selects the product route: wc / ws (Kn, F),
+// a power of two from 64 to 4096 (1 <= teams <= 4096 / n_fft), or the smooth
+// route where fft_covers_smooth(n_fft) (1 <= teams <= fft_smooth_max_teams),
+// window (n_fft,) and fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft), rows
+// even; wc / ws and Kn are not read.  teams == 0 selects the product route: wc / ws (Kn, F),
 // Kn a multiple of 32 >= n_fft, zero rows past n_fft, rows <= 40 frames per
 // block; window and fft_tw are not read.  Returns a cudaError_t.
 int att_session_encode(const float* x, const float* wc, const float* ws, const float* window,
@@ -763,8 +775,10 @@ int att_session_encode(const float* x, const float* wc, const float* ws, const f
     using namespace att;
     const int n_fft = overlap * hop;
     const bool fft = teams > 0;
+    const bool smooth = fft && !fft_covers(n_fft);
+    const int max_teams = smooth ? fft_smooth_max_teams(n_fft) : fft_max_teams(n_fft);
     if (!session_args_ok(B, T, F, hop, overlap) || rows < 1 || F != n_fft / 2 + 1 ||
-        (fft && (!fft_covers(n_fft) || teams > fft_max_teams(n_fft) || rows % 2 != 0)) ||
+        (fft && ((smooth && !fft_covers_smooth(n_fft)) || teams > max_teams || rows % 2 != 0)) ||
         (!fft && (Kn % kKC != 0 || rows > kMaxRows))) {
         return (int)cudaErrorInvalidValue;
     }
@@ -778,16 +792,20 @@ int att_session_encode(const float* x, const float* wc, const float* ws, const f
     const dim3 grid((unsigned)(B * a.n_tiles));
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
-#define ATT_LAUNCH_ENC(MAG, FFT)                                                   \
+#define ATT_LAUNCH_ENC(MAG, FFT, SMOOTH)                                           \
     do {                                                                           \
-        err = session_allow_smem(session_encode_kernel<MAG, FFT>, smem);           \
+        err = session_allow_smem(session_encode_kernel<MAG, FFT, SMOOTH>, smem);   \
         if (err != cudaSuccess) return (int)err;                                   \
-        session_encode_kernel<MAG, FFT><<<grid, kThreads, smem, s>>>(a);           \
+        session_encode_kernel<MAG, FFT, SMOOTH><<<grid, kThreads, smem, s>>>(a);   \
     } while (0)
     if (magnitude) {
-        if (fft) ATT_LAUNCH_ENC(true, true); else ATT_LAUNCH_ENC(true, false);
+        if (smooth) ATT_LAUNCH_ENC(true, true, true);
+        else if (fft) ATT_LAUNCH_ENC(true, true, false);
+        else ATT_LAUNCH_ENC(true, false, false);
     } else {
-        if (fft) ATT_LAUNCH_ENC(false, true); else ATT_LAUNCH_ENC(false, false);
+        if (smooth) ATT_LAUNCH_ENC(false, true, true);
+        else if (fft) ATT_LAUNCH_ENC(false, true, false);
+        else ATT_LAUNCH_ENC(false, false, false);
     }
 #undef ATT_LAUNCH_ENC
     return (int)cudaGetLastError();
@@ -795,10 +813,12 @@ int att_session_encode(const float* x, const float* wc, const float* ws, const f
 
 // Kernels L (angles == nullptr) and M.  x (B, L); angles (B, Ta, F) with
 // Ta >= T; out (B, T * hop), every sample written.  teams > 0 selects the FFT
-// route: n_fft = overlap hop a power of two from 64 to 4096, window (n_fft,)
-// the analysis window, wsyn (n_fft,) the synthesis window / gain / n_fft,
-// fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft), 1 <= teams <= 4096 / n_fft,
-// rows a multiple of 2 overlap; wc, ws, syn, Kn and Kp are not read.  teams ==
+// route: n_fft = overlap hop a power of two from 64 to 4096 (1 <= teams <=
+// 4096 / n_fft), or the smooth route where fft_covers_smooth(n_fft) (1 <=
+// teams <= fft_smooth_max_teams), window (n_fft,) the analysis window, wsyn
+// (n_fft,) the synthesis window / gain / n_fft (frames_fft.irfft_window),
+// fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft), rows a multiple of 2
+// overlap; wc, ws, syn, Kn and Kp are not read.  teams ==
 // 0 selects the product route: wc / ws as for R; syn (overlap, Kp, hop), Kp a
 // multiple of 32 >= 2F; rows output chunks per block, rows + overlap - 1 <=
 // 40; window, wsyn and fft_tw are not read.  Returns a cudaError_t.
@@ -810,8 +830,10 @@ int att_session_roundtrip(const float* x, const float* angles, const float* wc, 
     using namespace att;
     const int n_fft = overlap * hop;
     const bool fft = teams > 0;
+    const bool smooth = fft && !fft_covers(n_fft);
+    const int max_teams = smooth ? fft_smooth_max_teams(n_fft) : fft_max_teams(n_fft);
     if (!session_args_ok(B, T, F, hop, overlap) || rows < 1 || (angles != nullptr && Ta < T) ||
-        (fft && (!fft_covers(n_fft) || F != n_fft / 2 + 1 || teams > fft_max_teams(n_fft) ||
+        (fft && ((smooth && !fft_covers_smooth(n_fft)) || F != n_fft / 2 + 1 || teams > max_teams ||
                  rows % (2 * overlap) != 0)) ||
         (!fft && (Kn % kKC != 0 || Kp % kSynKC != 0 || Kp < 2 * F || rows + overlap - 1 > kMaxRows))) {
         return (int)cudaErrorInvalidValue;
@@ -829,13 +851,17 @@ int att_session_roundtrip(const float* x, const float* angles, const float* wc, 
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
     if (fft) {
-#define ATT_LAUNCH_RTF(RAND)                                                       \
+#define ATT_LAUNCH_RTF(RAND, SMOOTH)                                               \
     do {                                                                           \
-        err = session_allow_smem(session_roundtrip_fft_kernel<RAND>, smem);        \
+        err = session_allow_smem(session_roundtrip_fft_kernel<RAND, SMOOTH>, smem);\
         if (err != cudaSuccess) return (int)err;                                   \
-        session_roundtrip_fft_kernel<RAND><<<grid, kThreads, smem, s>>>(a);        \
+        session_roundtrip_fft_kernel<RAND, SMOOTH><<<grid, kThreads, smem, s>>>(a);\
     } while (0)
-        if (angles != nullptr) ATT_LAUNCH_RTF(true); else ATT_LAUNCH_RTF(false);
+        if (smooth) {
+            if (angles != nullptr) ATT_LAUNCH_RTF(true, true); else ATT_LAUNCH_RTF(false, true);
+        } else {
+            if (angles != nullptr) ATT_LAUNCH_RTF(true, false); else ATT_LAUNCH_RTF(false, false);
+        }
 #undef ATT_LAUNCH_RTF
         return (int)cudaGetLastError();
     }

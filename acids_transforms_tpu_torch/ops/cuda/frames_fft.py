@@ -12,8 +12,11 @@ session encode (R, the magnitude encode of N) and the full-K melspec and
 representation front ends (E, F, G, H) run the forward; K's synthesis the
 inverse; the full-K Griffin-Lim step (J) both; the streaming roundtrips (L,
 M) both in one team (``frames_roundtrip``), wherever :func:`fft_covers`
-takes ``n_fft``; every other ``n_fft`` keeps the window-folded products of
-``dft_common.cuh`` and ``synth_ola.cuh``.  The rule reads ``n_fft`` alone.
+takes ``n_fft``.  R, N's encode, L and M also take the mixed-radix schedule
+wherever :func:`fft_covers_smooth` takes ``n_fft`` (even, ``2^a 3^b 5^c``,
+64 to 4096, not a power of two: 1200, 960, 768, 400, 1920, ...); every other
+``n_fft`` keeps the window-folded products of ``dft_common.cuh`` and
+``synth_ola.cuh``.  The rules read ``n_fft`` alone.
 
 The schedule, which :func:`frames_rfft_reference` and
 :func:`frames_irfft_reference` repeat step for step:
@@ -29,6 +32,15 @@ The schedule, which :func:`frames_rfft_reference` and
   twiddles ``e^{-2 pi i k (b - q) / n}`` of one table built in float64 and
   rounded to float32 (:func:`fft_twiddles`).  The kernel runs two stages per
   trip through shared memory, which changes no operation;
+* the mixed-radix schedule (``smooth=True``) is the same Stockham auto-sort
+  FFT over the radices of :func:`fft_radices` (fives, threes, fours, then a
+  two), one stage per trip: stage radix ``r`` with stride ``s`` reads
+  ``x[b + k n/r]``, ``k < r``, for each butterfly ``b < n/r``, takes the
+  length-``r`` DFT (:func:`_dft`; the radix-3 and radix-5 constants rounded
+  once from float64, :data:`SMOOTH_CONSTANTS`) and writes ``y[r (b - q) + q +
+  s k]`` (``q = b mod s``), the outputs 1 to ``r - 1`` turned by the
+  twiddles ``e^{-2 pi i k (b - q) / n}`` of the same table, except in the
+  last stage, whose twiddles are all 1;
 * forward, the split ``X_a[k] = (Z[k] + conj Z[n - k]) / 2``, ``X_b[k] =
   (Z[k] - conj Z[n - k]) / 2i``;
 * inverse, ``Z = X_a + i X_b`` over ``k < n`` (``X[n - k] = conj X[k]``, the
@@ -54,7 +66,9 @@ from ..fft import _tables
 __all__ = [
     "FFT_MIN", "FFT_MAX", "fft_covers", "fft_twiddles", "fft_team_threads", "fft_max_teams",
     "fft_smem_floats", "frames_rfft_reference", "frames_irfft_reference", "irfft_window",
-    "overlap_add_classes", "class_plan", "taps_window",
+    "overlap_add_classes", "class_plan", "taps_window", "fft_covers_smooth", "fft_radices",
+    "fft_smooth_team_threads", "fft_smooth_max_teams", "fft_smooth_table", "fft_smooth_smem_floats",
+    "SMOOTH_CONSTANTS", "class_plan_smooth",
 ]
 
 FFT_MIN, FFT_MAX = 64, 4096       # the sizes frames_rfft takes (powers of two)
@@ -70,6 +84,99 @@ def fft_covers(n_fft: int) -> bool:
     for every other ``n_fft``."""
     n = int(n_fft)
     return FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0
+
+
+def fft_covers_smooth(n_fft: int) -> bool:
+    """Whether the mixed-radix route takes ``n_fft``: even, ``2^a 3^b 5^c``
+    (``a >= 1``), from 64 to 4096, and not a power of two (those keep
+    :func:`fft_covers`'s schedule).  Only R, the magnitude encode, L and M
+    take it; every other kernel runs its product route there."""
+    n = int(n_fft)
+    if not FFT_MIN <= n <= FFT_MAX or n % 2 or n & (n - 1) == 0:
+        return False
+    for p in (2, 3, 5):
+        while n % p == 0:
+            n //= p
+    return n == 1
+
+
+@functools.lru_cache(maxsize=None)
+def fft_radices(n_fft: int) -> Tuple[int, ...]:
+    """The radix plan of ``n_fft = 2^a 3^b 5^c``, in the order the stages
+    run: the fives, the threes, ``a // 2`` fours, then a two when ``a`` is
+    odd (a power of two gets the radix-4 schedule's own radices).  The odd
+    radices go first: their stride-``r`` writes (stride 1) fall on distinct
+    banks, and the last stage, which needs no twiddle and writes where it
+    reads, is a four or a two.  ``csrc/fft_smem.cuh:fft_smooth_plan`` is its
+    twin."""
+    n, out = int(n_fft), []
+    for p in (5, 3):
+        while n % p == 0:
+            out.append(p)
+            n //= p
+    while n % 4 == 0:
+        out.append(4)
+        n //= 4
+    if n == 2:
+        out.append(2)
+        n = 1
+    if n != 1:
+        raise ValueError("n_fft=%d is no 2^a 3^b 5^c" % int(n_fft))
+    return tuple(out)
+
+
+def fft_smooth_team_threads(n_fft: int) -> int:
+    """Threads that run one mixed-radix FFT together: the least power of two
+    at or above ``n_fft / 16``, so that a thread holds 8 to 16 values, at
+    most the power-of-two route's 16, and teams tile warps (128 at 1200 and
+    1920, 64 at 960 and 768, 32 at 400, 8 at 96)."""
+    n, g = int(n_fft), 1
+    while 16 * g < n:
+        g *= 2
+    return g
+
+
+def fft_smooth_max_teams(n_fft: int) -> int:
+    """Mixed-radix FFTs a block of 256 threads runs at the same time."""
+    return THREADS // fft_smooth_team_threads(n_fft)
+
+
+def fft_smooth_table(n_fft: int) -> int:
+    """Twiddle-table entries the mixed-radix stages read: the largest ``k (b
+    - q) + 1`` of a stage before the last, ``(r - 1)(n / r - s) + 1`` (957 at
+    1200, whose first stage is a five)."""
+    n, s, out = int(n_fft), 1, 1
+    rad = fft_radices(n)
+    for r in rad[:-1]:
+        out = max(out, (r - 1) * (n // r - s) + 1)
+        s *= r
+    return out
+
+
+def fft_smooth_buf_floats(n_fft: int) -> int:
+    """One team's buffer on the mixed-radix route: re and im of ``n_fft``
+    values, unswizzled, then the second half the stages alternate with;
+    teams that share a warp (fewer than 32 threads) start ``team threads``
+    banks apart."""
+    n, g = int(n_fft), fft_smooth_team_threads(n_fft)
+    return 4 * n + ((g - 4 * n) % 32 if g < 32 else 0)
+
+
+def fft_smooth_smem_floats(n_fft: int, teams: int) -> int:
+    """Shared memory of the mixed-radix FFT in floats, as ``csrc/
+    fft_smem.cuh`` lays it out: the window, the twiddles ``j <``
+    :func:`fft_smooth_table` (cos and -sin) and the teams' buffers."""
+    return n_fft + 2 * fft_smooth_table(n_fft) + teams * fft_smooth_buf_floats(n_fft)
+
+
+#: the radix-3 and radix-5 butterflies' constants, rounded once from
+#: float64: sin(pi/3); cos(2 pi/5), cos(4 pi/5), sin(2 pi/5), sin(4 pi/5)
+#: (``csrc/fft_smem.cuh`` holds the same floats as hex literals)
+SMOOTH_CONSTANTS = {
+    name: float(np.float32(v)) for name, v in (
+        ("r3s", np.sin(np.pi / 3)), ("r5c1", np.cos(2 * np.pi / 5)), ("r5c2", np.cos(4 * np.pi / 5)),
+        ("r5s1", np.sin(2 * np.pi / 5)), ("r5s2", np.sin(4 * np.pi / 5)))
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,6 +248,33 @@ def class_plan(n_fft: int, hop: int, smem_bytes: Callable[[int, int], int],
     return None
 
 
+def class_plan_smooth(n_fft: int, hop: int, smem_bytes: Callable[[int, int], int],
+                      widest: int = 64) -> Optional[Tuple[int, int]]:
+    """:func:`class_plan` of the mixed-radix route: ``(rows, teams)`` over
+    every power of two of teams up to :func:`fft_smooth_max_teams` and every
+    multiple of ``2 overlap`` up to ``widest``, the most chunks per round of
+    pair FFTs times the blocks an SM holds (2 where ``smem_bytes(rows,
+    teams)`` leaves room for a second, else 1), ties to the taller block.  A
+    sweep of every plan at 1200/300, 960/240, 768/192, 400/100 and 1920/480
+    (on an H100) found the largest rows of the most teams a bad rule
+    there: fewer teams leave room for taller blocks (24 chunks of 2 FFTs at
+    960/240 0.68 ms, 8 of 4 FFTs 1.03)."""
+    ov = n_fft // hop
+    best, score = None, 0.0
+    teams = 1
+    while teams <= fft_smooth_max_teams(n_fft):
+        for rows in range(2 * ov, widest + 1, 2 * ov):
+            b = smem_bytes(rows, teams)
+            if b > MAX_SMEM:
+                break
+            rounds = ov * -(-(rows // (2 * ov) + 1) // teams)
+            s = (2 if b <= TWO_BLOCKS_SMEM else 1) * rows / rounds
+            if s >= score:
+                best, score = (rows, teams), s
+        teams *= 2
+    return best
+
+
 def _stockham(re: torch.Tensor, im: torch.Tensor, twr: torch.Tensor, twi: torch.Tensor):
     """The complex FFT of the rows of ``(re, im)`` ``(P, n)``, natural order,
     in the kernel's passes."""
@@ -178,6 +312,65 @@ def _stockham(re: torch.Tensor, im: torch.Tensor, twr: torch.Tensor, twi: torch.
     return re, im
 
 
+def _dft(r: int, xr, xi):
+    """The length-``r`` DFT (``e^{-2 pi i j k / r}``) of the lists ``(xr,
+    xi)``, in the kernel's float32 operations (``fft_smem.cuh:fft_dft``)."""
+    if r == 2:
+        return [xr[0] + xr[1], xr[0] - xr[1]], [xi[0] + xi[1], xi[0] - xi[1]]
+    if r == 4:
+        apc_r, apc_i = xr[0] + xr[2], xi[0] + xi[2]
+        amc_r, amc_i = xr[0] - xr[2], xi[0] - xi[2]
+        bpd_r, bpd_i = xr[1] + xr[3], xi[1] + xi[3]
+        bmd_r, bmd_i = xr[1] - xr[3], xi[1] - xi[3]
+        return ([apc_r + bpd_r, amc_r + bmd_i, apc_r - bpd_r, amc_r - bmd_i],
+                [apc_i + bpd_i, amc_i - bmd_r, apc_i - bpd_i, amc_i + bmd_r])
+    c = SMOOTH_CONSTANTS
+    if r == 3:
+        # y0 = x0 + t, y1,2 = (x0 - t / 2) -+ i sin(pi/3) (x1 - x2), t = x1 + x2
+        tr, ti = xr[1] + xr[2], xi[1] + xi[2]
+        ar, ai = xr[0] - tr * 0.5, xi[0] - ti * 0.5
+        br, bi = (xr[1] - xr[2]) * c["r3s"], (xi[1] - xi[2]) * c["r3s"]
+        return [xr[0] + tr, ar + bi, ar - bi], [xi[0] + ti, ai - br, ai + br]
+    if r == 5:
+        s1r, s1i = xr[1] + xr[4], xi[1] + xi[4]
+        d1r, d1i = xr[1] - xr[4], xi[1] - xi[4]
+        s2r, s2i = xr[2] + xr[3], xi[2] + xi[3]
+        d2r, d2i = xr[2] - xr[3], xi[2] - xi[3]
+        a1r = (xr[0] + s1r * c["r5c1"]) + s2r * c["r5c2"]
+        a1i = (xi[0] + s1i * c["r5c1"]) + s2i * c["r5c2"]
+        a2r = (xr[0] + s1r * c["r5c2"]) + s2r * c["r5c1"]
+        a2i = (xi[0] + s1i * c["r5c2"]) + s2i * c["r5c1"]
+        b1r = d1r * c["r5s1"] + d2r * c["r5s2"]
+        b1i = d1i * c["r5s1"] + d2i * c["r5s2"]
+        b2r = d1r * c["r5s2"] - d2r * c["r5s1"]
+        b2i = d1i * c["r5s2"] - d2i * c["r5s1"]
+        # y1,4 = a1 -+ i b1, y2,3 = a2 -+ i b2
+        return ([(xr[0] + s1r) + s2r, a1r + b1i, a2r + b2i, a2r - b2i, a1r - b1i],
+                [(xi[0] + s1i) + s2i, a1i - b1r, a2i - b2r, a2i + b2r, a1i + b1r])
+    raise ValueError("no radix-%d butterfly" % r)
+
+
+def _stockham_smooth(re: torch.Tensor, im: torch.Tensor, twr: torch.Tensor, twi: torch.Tensor):
+    """The complex FFT of the rows of ``(re, im)`` ``(P, n)``, natural order,
+    in the mixed-radix kernel's stages (:func:`fft_radices`)."""
+    P, n = re.shape
+    rad = fft_radices(n)
+    s, nn = 1, n
+    for st, r in enumerate(rad):
+        m = nn // r
+        ur, ui = _dft(r, list(re.reshape(P, r, m, s).unbind(1)), list(im.reshape(P, r, m, s).unbind(1)))
+        if st < len(rad) - 1:
+            base = torch.arange(m, device=re.device)[:, None] * s          # b - q = p s
+            for k in range(1, r):
+                wr, wi = twr[k * base], twi[k * base]                       # (m, 1), over q
+                ur[k], ui[k] = ur[k] * wr - ui[k] * wi, ur[k] * wi + ui[k] * wr
+        # y[q + s (r p + k)]: (P, m, r, s)
+        re = torch.stack(ur, dim=2).reshape(P, n)
+        im = torch.stack(ui, dim=2).reshape(P, n)
+        s, nn = r * s, m
+    return re, im
+
+
 def _pairs(x: torch.Tensor, stride: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The pairs of frames ``(..., T, m)`` -> ``(first, second)`` ``(P, m)``:
     frames ``2 stride g + c`` and ``2 stride g + c + stride`` (``c < stride``),
@@ -199,26 +392,31 @@ def _unpairs(first: torch.Tensor, second: torch.Tensor, lead, T: int, stride: in
     return y.reshape(n_lead, -1, m)[:, :T].reshape(tuple(lead) + (T, m))
 
 
-def _check_size(n: int) -> None:
-    if not fft_covers(n):
+def _check_size(n: int, smooth: bool = False) -> None:
+    if smooth:
+        if not fft_covers_smooth(n):
+            raise ValueError("the mixed-radix schedule takes n_fft even, 2^a 3^b 5^c, from %d to %d and no "
+                             "power of two, got %d" % (FFT_MIN, FFT_MAX, n))
+    elif not fft_covers(n):
         raise ValueError("frames_rfft takes n_fft a power of two from %d to %d, got %d" % (FFT_MIN, FFT_MAX, n))
 
 
 def frames_rfft_reference(frames: torch.Tensor, window: torch.Tensor,
-                          stride: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+                          stride: int = 1, smooth: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``frames_rfft``: ``(re, im)`` ``(..., T, n_fft // 2 +
     1)`` of the windowed frames ``(..., T, n_fft)``, float32, in the kernel's
     schedule (module notes): pairs ``(2 stride g + c, 2 stride g + c +
     stride)`` along ``T`` (``stride = 1``: ``(2j, 2j + 1)``), the Stockham
-    passes, the split.  Uses no ``torch.fft``."""
+    passes, the split.  ``smooth``: the mixed-radix schedule, for ``n_fft``
+    that :func:`fft_covers_smooth` takes.  Uses no ``torch.fft``."""
     n = frames.shape[-1]
-    _check_size(n)
+    _check_size(n, smooth)
     lead, T = frames.shape[:-2], frames.shape[-2]
     x = frames.to(torch.float32)
     w = window.to(device=x.device, dtype=torch.float32)
     first, second = _pairs(x, stride)
     (tw,) = _tables(fft_twiddles, x.device, n)
-    zr, zi = _stockham(w * first, w * second, tw[0], tw[1])
+    zr, zi = (_stockham_smooth if smooth else _stockham)(w * first, w * second, tw[0], tw[1])
     F = n // 2 + 1
     k = torch.arange(F, device=x.device)
     a, b = zr[:, :F], zi[:, :F]
@@ -228,14 +426,19 @@ def frames_rfft_reference(frames: torch.Tensor, window: torch.Tensor,
     return _unpairs(x0r, x1r, lead, T, stride), _unpairs(x0i, x1i, lead, T, stride)
 
 
-def irfft_window(window: torch.Tensor, n_fft: int) -> torch.Tensor:
+def irfft_window(window: torch.Tensor, n_fft: int, smooth: bool = False) -> torch.Tensor:
     """The synthesis window as ``frames_irfft`` takes it: ``window / n_fft``
-    in float32 (exact: ``n_fft`` is a power of two)."""
+    in float32 (exact: ``n_fft`` is a power of two).  ``smooth`` (``n_fft``
+    no power of two): the division in float64, rounded once to float32; the
+    kernels read this table, so they round the fold as their plain versions
+    do."""
+    if smooth:
+        return (window.to(torch.float64) / n_fft).to(torch.float32)
     return window.to(torch.float32) * (1.0 / n_fft)
 
 
 def frames_irfft_reference(re: torch.Tensor, im: torch.Tensor, wsyn: torch.Tensor,
-                           stride: int = 1) -> torch.Tensor:
+                           stride: int = 1, smooth: bool = False) -> torch.Tensor:
     """Plain version of ``frames_irfft``: the windowed frames ``(..., T,
     n_fft)`` of the spectra ``(re, im)`` ``(..., T, n_fft // 2 + 1)``, float32,
     ``wsyn[i] sum_k c_k Re(X[k] e^{2 pi i k i / n_fft})`` with ``wsyn`` from
@@ -243,10 +446,11 @@ def frames_irfft_reference(re: torch.Tensor, im: torch.Tensor, wsyn: torch.Tenso
     at DC and nyquist are not read), in the kernel's schedule: pairs as
     :func:`frames_rfft_reference`'s, ``Z = X_0 + i X_1`` packed over ``k <
     n_fft`` as ``conj Z``, the Stockham passes, ``X_0 = wsyn Re``, ``X_1 =
-    -(wsyn Im)``.  Uses no ``torch.fft``."""
+    -(wsyn Im)``.  ``smooth``: the mixed-radix schedule (``wsyn`` from
+    ``irfft_window(..., smooth=True)``).  Uses no ``torch.fft``."""
     F = re.shape[-1]
     n = 2 * (F - 1)
-    _check_size(n)
+    _check_size(n, smooth)
     lead, T = re.shape[:-2], re.shape[-2]
     ar, br = _pairs(re.to(torch.float32), stride)
     ai, bi = _pairs(im.to(torch.float32), stride)
@@ -262,7 +466,7 @@ def frames_irfft_reference(re: torch.Tensor, im: torch.Tensor, wsyn: torch.Tenso
     zr[:, mirror] = ar[:, inner] + bi[:, inner]
     zi[:, mirror] = ai[:, inner] - br[:, inner]
     (tw,) = _tables(fft_twiddles, ar.device, n)
-    yr, yi = _stockham(zr, zi, tw[0], tw[1])
+    yr, yi = (_stockham_smooth if smooth else _stockham)(zr, zi, tw[0], tw[1])
     w = wsyn.to(device=ar.device, dtype=torch.float32)
     return _unpairs(w * yr, -(w * yi), lead, T, stride)
 

@@ -9,18 +9,23 @@ to three kernel launches instead of a Python loop of small ops per chunk
   ``frames_fft.fft_covers(n_fft)`` (a power of two from 64 to 4096) the
   encode and the magnitude encode take the FFT route
   (``csrc/fft_smem.cuh:frames_rfft``: the window and a twiddle table, no
-  basis); every other ``n_fft`` the product route (the window-folded
-  ``(Kn, F)`` basis).  The rule reads ``n_fft`` alone;
+  basis); where ``frames_fft.fft_covers_smooth(n_fft)`` (even, ``2^a 3^b
+  5^c``, 64 to 4096, no power of two: 1200, 960, 768, ...) the smooth route,
+  the same kernel on ``frames_rfft``'s mixed-radix instance; every other
+  ``n_fft`` the product route (the window-folded ``(Kn, F)`` basis).  The
+  rule reads ``n_fft`` alone (:func:`session_route`);
 * ``make_fused_roundtrip`` (L): the complex roundtrip, audio -> audio;
 * ``make_fused_random_roundtrip`` (M): the ``random`` roundtrip (the
   reference's default realtime mode), ``|X|`` with the session's angles.
   L and M take the FFT route where ``fft_covers(n_fft)``
   (``csrc/fft_smem.cuh:frames_roundtrip``: each frame pair's forward and
   inverse FFT in one team's buffer, the frames overlap-added in class order;
-  :func:`_roundtrip_plan`), the products elsewhere;
+  :func:`_roundtrip_plan`), the smooth route (its mixed-radix instance)
+  where ``fft_covers_smooth(n_fft)``, the products elsewhere;
 * ``make_fused_random_invert`` (P): the ``random`` decode, magnitudes
   ``(..., T, F)`` -> audio ``(..., T * hop)``.  P, S and O's projection
-  synthesis take the FFT route where ``fft_covers(n_fft)``
+  synthesis take the FFT route where ``fft_covers(n_fft)`` (never the smooth
+  route)
   (``csrc/stream_step.cu:session_decode_fft_kernel``: ``frames_irfft`` of
   the input spectra, the roundtrips' synthesis; :func:`_decode_plan`), the
   synthesis product elsewhere;
@@ -70,7 +75,7 @@ launches its kernel or raises; on a CPU tensor it runs the plain PyTorch
 version beside it (``session_*_reference``: materialized frames; on the FFT
 route ``frames_fft.frames_rfft_reference`` and, for L and M,
 ``frames_irfft_reference`` and ``overlap_add_classes`` in the kernels'
-schedule; elsewhere ``torch.matmul`` against the windowed bases, in float32,
+schedule, with ``smooth=True`` on the smooth route; elsewhere ``torch.matmul`` against the windowed bases, in float32,
 and ``ops/framing.overlap_add``), which is also what the kernels are held
 against on the card.
 
@@ -147,10 +152,15 @@ from ..pghi import EPS, random_angles
 from . import _build
 from .frames_fft import (
     MAX_SMEM,
+    TWO_BLOCKS_SMEM,
     class_plan,
+    class_plan_smooth,
     fft_covers,
+    fft_covers_smooth,
     fft_max_teams,
     fft_smem_floats,
+    fft_smooth_max_teams,
+    fft_smooth_smem_floats,
     fft_twiddles,
     frames_irfft_reference,
     frames_rfft_reference,
@@ -174,7 +184,7 @@ __all__ = [
     "session_magnitude_reference", "rt_fill_plan", "rt_pghi_phases_reference",
     "session_complex_decode_reference",
     "gl_project_reference", "gl_polish_reference", "session_pghi_gl_reference", "launches", "routes",
-    "reset_launches",
+    "reset_launches", "session_route",
 ]
 
 MAX_ROWS = 40                     # frames one block's analysis holds (8 warps x 5 rows)
@@ -197,12 +207,14 @@ launches: Dict[str, int] = {
     "rt_pghi_seeded": 0, "gl_project_synthesis": 0, "gl_project_analysis": 0, "gl_polish": 0,
 }
 #: the encode's, the roundtrips' and the decodes' launches by route,
-#: ``"<kernel>:fft"`` / ``"<kernel>:product"`` (each also counts in ``launches``)
+#: ``"<kernel>:fft"`` / ``"<kernel>:smooth"`` (the encodes and the roundtrips
+#: only) / ``"<kernel>:product"`` (each also counts in ``launches``)
 routes: Dict[str, int] = {
-    "session_encode:fft": 0, "session_encode:product": 0,
-    "session_magnitude:fft": 0, "session_magnitude:product": 0,
-    "session_roundtrip:fft": 0, "session_roundtrip:product": 0,
-    "session_random_roundtrip:fft": 0, "session_random_roundtrip:product": 0,
+    "session_encode:fft": 0, "session_encode:smooth": 0, "session_encode:product": 0,
+    "session_magnitude:fft": 0, "session_magnitude:smooth": 0, "session_magnitude:product": 0,
+    "session_roundtrip:fft": 0, "session_roundtrip:smooth": 0, "session_roundtrip:product": 0,
+    "session_random_roundtrip:fft": 0, "session_random_roundtrip:smooth": 0,
+    "session_random_roundtrip:product": 0,
     "session_random_decode:fft": 0, "session_random_decode:product": 0,
     "session_complex_decode:fft": 0, "session_complex_decode:product": 0,
     "gl_project_synthesis:fft": 0, "gl_project_synthesis:product": 0, "gl_polish:fft": 0,
@@ -352,10 +364,27 @@ def _encode_smem_bytes(rows: int, hop: int, kn: int) -> int:
     return 4 * ((rows - 1) * hop + kn + _STAGE)
 
 
+def session_route(n_fft: int) -> str:
+    """The route of R, the magnitude encode, L and M at ``n_fft``: ``"fft"``
+    where ``fft_covers`` (a power of two from 64 to 4096), ``"smooth"`` where
+    ``fft_covers_smooth`` (the mixed-radix instance), else ``"product"``.  The
+    decodes (P, S, O's synthesis) and the polish read ``fft_covers`` alone."""
+    if fft_covers(n_fft):
+        return "fft"
+    return "smooth" if fft_covers_smooth(n_fft) else "product"
+
+
+def _fft_area_floats(n_fft: int, teams: int) -> int:
+    """``frames_rfft``'s area on the route ``n_fft`` takes (``csrc/
+    fft_smem.cuh:fft_area_floats``)."""
+    return fft_smem_floats(n_fft, teams) if fft_covers(n_fft) else fft_smooth_smem_floats(n_fft, teams)
+
+
 def _encode_fft_smem_bytes(rows: int, hop: int, n_fft: int, teams: int) -> int:
-    """Shared memory of one encode block on the FFT route: the samples of
-    ``rows`` frames, then ``frames_rfft``'s window, twiddles and buffers."""
-    return 4 * ((rows - 1) * hop + n_fft + fft_smem_floats(n_fft, teams))
+    """Shared memory of one encode block on the FFT or smooth route: the
+    samples of ``rows`` frames, then ``frames_rfft``'s window, twiddles and
+    buffers."""
+    return 4 * ((rows - 1) * hop + n_fft + _fft_area_floats(n_fft, teams))
 
 
 def _roundtrip_smem_bytes(rows: int, overlap: int, hop: int, kn: int, kp: int) -> int:
@@ -364,11 +393,11 @@ def _roundtrip_smem_bytes(rows: int, overlap: int, hop: int, kn: int, kp: int) -
 
 
 def _roundtrip_fft_smem_bytes(rows: int, overlap: int, hop: int, teams: int) -> int:
-    """Shared memory of one roundtrip block on the FFT route: the samples of
-    ``rows + 2 overlap`` frames, the ``rows`` output chunks, ``frames_rfft``'s
-    area and the synthesis window."""
+    """Shared memory of one roundtrip block on the FFT or smooth route: the
+    samples of ``rows + 2 overlap`` frames, the ``rows`` output chunks,
+    ``frames_rfft``'s area and the synthesis window."""
     n = overlap * hop
-    return 4 * ((rows + 2 * overlap - 1) * hop + n + rows * hop + fft_smem_floats(n, teams) + n)
+    return 4 * ((rows + 2 * overlap - 1) * hop + n + rows * hop + _fft_area_floats(n, teams) + n)
 
 
 def _decode_smem_bytes(rows: int, overlap: int, kp: int) -> int:
@@ -418,19 +447,30 @@ def _encode_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
     threads run (``4096 / n_fft``), and a block of four rounds of them (8
     frames per FFT: measured fastest at 1024/256 among 1, 2, 4 and 8 rounds,
     two blocks to an SM), fewer rounds and then fewer FFTs where that does
-    not fit; the product route: ``teams = 0`` and :func:`_pick_rows`'s
-    height."""
-    if not fft_covers(n_fft):
+    not fit; the smooth route (``fft_covers_smooth(n_fft)``) the same rule
+    with its own teams (``frames_fft.fft_smooth_max_teams``: 2 at 1200, 16
+    frames), first among the blocks that leave room for a second on the SM
+    (measured on the H100 at 1920/480: 8 frames two blocks an SM 0.24 ms, 16
+    one block 0.35); the product route: ``teams = 0`` and
+    :func:`_pick_rows`'s height."""
+    route = session_route(n_fft)
+    if route == "product":
         rows = _pick_rows("encode", n_fft, hop)
         return None if rows is None else (rows, 0)
-    teams = fft_max_teams(n_fft)
-    while teams >= 1:
-        rows = 8 * teams
-        while rows >= 2:
-            if _encode_fft_smem_bytes(rows, hop, n_fft, teams) <= MAX_SMEM:
-                return rows, teams
-            rows //= 2
-        teams //= 2
+    if route == "smooth":
+        limits = (TWO_BLOCKS_SMEM, MAX_SMEM)
+        top = fft_smooth_max_teams(n_fft)
+    else:
+        limits, top = (MAX_SMEM,), fft_max_teams(n_fft)
+    for limit in limits:
+        teams = top
+        while teams >= 1:
+            rows = 8 * teams
+            while rows >= 2:
+                if _encode_fft_smem_bytes(rows, hop, n_fft, teams) <= limit:
+                    return rows, teams
+                rows //= 2
+            teams //= 2
     return None
 
 
@@ -439,13 +479,17 @@ def _roundtrip_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
     """``(rows, teams)`` of L's and M's launch, or None when no block fits.
     The FFT route (``fft_covers(n_fft)``): ``frames_fft.class_plan`` (rows a
     multiple of ``2 overlap``, two blocks an SM where they fit: 24 chunks and 4
-    FFTs at 1024/256); the product route: ``teams = 0`` and
+    FFTs at 1024/256); the smooth route (``fft_covers_smooth(n_fft)``)
+    ``frames_fft.class_plan_smooth`` (16 chunks and 2 FFTs at 1200/300, 56
+    and 4 at 960/240); the product route: ``teams = 0`` and
     :func:`_pick_rows`'s height."""
-    if not fft_covers(n_fft):
+    route = session_route(n_fft)
+    if route == "product":
         rows = _pick_rows("roundtrip", n_fft, hop)
         return None if rows is None else (rows, 0)
     overlap = n_fft // hop
-    return class_plan(n_fft, hop, lambda r, teams: _roundtrip_fft_smem_bytes(r, overlap, hop, teams))
+    plan = class_plan if route == "fft" else class_plan_smooth
+    return plan(n_fft, hop, lambda r, teams: _roundtrip_fft_smem_bytes(r, overlap, hop, teams))
 
 
 @functools.lru_cache(maxsize=None)
@@ -601,10 +645,10 @@ def _ana_basis(window: torch.Tensor, n_fft: int, rows: Optional[int] = None):
 
 
 def _encode_operands(window: torch.Tensor, n_fft: int):
-    """What the encode reads besides the signal: on the FFT route the window
-    ``(n_fft,)`` and the twiddle table ``(2, n_fft)``, on the product route the
-    window-folded basis ``(Kn, F)`` x 2."""
-    if fft_covers(n_fft):
+    """What the encode reads besides the signal: on the FFT and smooth routes
+    the window ``(n_fft,)`` and the twiddle table ``(2, n_fft)``, on the
+    product route the window-folded basis ``(Kn, F)`` x 2."""
+    if session_route(n_fft) != "product":
         (tw,) = _tables(fft_twiddles, window.device, n_fft)
         return window.to(torch.float32).contiguous(), tw
     return _ana_basis(window, n_fft, _k_analysis(n_fft))
@@ -646,12 +690,13 @@ def _angles_3d(angles: torch.Tensor, B: int, n_frames: int, n_bins: int, device)
 # ---------------------------------------------------------- plain versions
 def session_encode_reference(x2d, window, n_fft: int, hop: int, n_frames: int):
     """Plain version of kernel R: ``(re, im)`` of the session's ``n_frames``
-    frames, each ``(B, n_frames, F)``: ``frames_rfft_reference`` where
-    ``fft_covers(n_fft)`` (the FFT route's schedule), else the products with
-    the window-folded basis."""
+    frames, each ``(B, n_frames, F)``: ``frames_rfft_reference`` on the FFT
+    and smooth routes (their schedules), else the products with the
+    window-folded basis."""
     frames = frame(session_rows(x2d, n_fft, hop, n_frames), n_fft, hop)
-    if fft_covers(n_fft):
-        return frames_rfft_reference(frames, window.to(x2d.device))
+    route = session_route(n_fft)
+    if route != "product":
+        return frames_rfft_reference(frames, window.to(x2d.device), smooth=route == "smooth")
     WC, WS = _ana_basis(window.to(x2d.device), n_fft)
     return torch.matmul(frames, WC), torch.matmul(frames, WS)
 
@@ -674,19 +719,21 @@ def _synthesize(re, im, inv_window, gain: float, n_fft: int, hop: int, T: int) -
     return overlap_add(frames, hop)[..., : T * hop]
 
 
-def _synthesize_fft(re, im, inv_window, gain: float, n_fft: int, hop: int, T: int) -> torch.Tensor:
+def _synthesize_fft(re, im, inv_window, gain: float, n_fft: int, hop: int, T: int,
+                    smooth: bool = False) -> torch.Tensor:
     """The synthesis of the FFT route in its kernels' schedule (the decode's
     and the roundtrips'): the frames from ``-(overlap - 1)`` on (those before
     0 zero), paired ``(u, u + overlap)`` for ``u mod 2 overlap < overlap``
     counted from the first, through ``frames_irfft_reference`` under the
     synthesis window over the gain; the samples of the frames before 0
     dropped, the overlap-add in class order ``(f + overlap - 1) mod
-    overlap``, cut at ``T * hop``."""
+    overlap``, cut at ``T * hop``.  ``smooth``: the roundtrips' smooth route
+    (the mixed-radix schedule)."""
     m = n_fft // hop - 1
     lead = re.new_zeros(re.shape[:-2] + (m, re.shape[-1]))
-    wsyn = irfft_window(inv_window.to(device=re.device, dtype=torch.float32) / gain, n_fft)
+    wsyn = irfft_window(inv_window.to(device=re.device, dtype=torch.float32) / gain, n_fft, smooth)
     y = frames_irfft_reference(torch.cat([lead, re], dim=-2), torch.cat([lead, im], dim=-2), wsyn,
-                               n_fft // hop)[..., m:, :]
+                               n_fft // hop, smooth)[..., m:, :]
     return overlap_add_classes(y, hop, m)[..., : T * hop]
 
 
@@ -700,12 +747,13 @@ def _synthesis_reference(re, im, inv_window, gain: float, n_fft: int, hop: int, 
 def session_roundtrip_reference(x2d, window, inv_window, gain: float, n_fft: int, hop: int,
                                 n_frames: int, angles=None) -> torch.Tensor:
     """Plain version of kernels L (``angles=None``) and M: ``(B, n_frames *
-    hop)``; M's angles ``(B, >= n_frames, F)``.  Where ``fft_covers(n_fft)``
-    it repeats the FFT route's schedule (:func:`_roundtrip_fft_reference`),
-    elsewhere the products of :func:`session_encode_reference` and the
-    synthesis."""
-    if fft_covers(n_fft):
-        return _roundtrip_fft_reference(x2d, window, inv_window, gain, n_fft, hop, n_frames, angles)
+    hop)``; M's angles ``(B, >= n_frames, F)``.  On the FFT and smooth routes
+    it repeats their schedule (:func:`_roundtrip_fft_reference`), elsewhere
+    the products of :func:`session_encode_reference` and the synthesis."""
+    route = session_route(n_fft)
+    if route != "product":
+        return _roundtrip_fft_reference(x2d, window, inv_window, gain, n_fft, hop, n_frames, angles,
+                                        smooth=route == "smooth")
     re, im = session_encode_reference(x2d, window, n_fft, hop, n_frames)
     if angles is not None:
         a = angles[:, :n_frames]
@@ -714,8 +762,9 @@ def session_roundtrip_reference(x2d, window, inv_window, gain: float, n_fft: int
     return _synthesize(re, im, inv_window, gain, n_fft, hop, n_frames)
 
 
-def _roundtrip_fft_reference(x2d, window, inv_window, gain, n_fft, hop, T, angles=None):
-    """L and M on the FFT route, in the kernel's schedule: the frames from
+def _roundtrip_fft_reference(x2d, window, inv_window, gain, n_fft, hop, T, angles=None, smooth=False):
+    """L and M on the FFT route (``smooth``: the smooth route's mixed-radix
+    schedule), in the kernel's schedule: the frames from
     ``-(overlap - 1)`` on (those before 0 all zero), paired ``(u, u +
     overlap)`` for ``u mod 2 overlap < overlap`` counted from the first, through
     ``frames_rfft_reference`` and ``frames_irfft_reference`` with that stride;
@@ -726,13 +775,13 @@ def _roundtrip_fft_reference(x2d, window, inv_window, gain, n_fft, hop, T, angle
     m = ov - 1
     frames = frame(session_rows(x2d, n_fft, hop, T), n_fft, hop)
     frames = torch.cat([frames.new_zeros((frames.shape[0], m, n_fft)), frames], dim=1)
-    re, im = frames_rfft_reference(frames, window.to(x2d.device), ov)
+    re, im = frames_rfft_reference(frames, window.to(x2d.device), ov, smooth)
     re, im = re[:, m:], im[:, m:]
     if angles is not None:
         a = angles[:, :T]
         mag = torch.sqrt(re * re + im * im)
         re, im = mag * torch.cos(a), mag * torch.sin(a)
-    return _synthesize_fft(re, im, inv_window, gain, n_fft, hop, T)
+    return _synthesize_fft(re, im, inv_window, gain, n_fft, hop, T, smooth)
 
 
 def session_decode_reference(mag, angles, inv_window, gain: float, n_fft: int, hop: int) -> torch.Tensor:
@@ -826,14 +875,15 @@ def rt_pghi_phases_reference(mag, angles, gamma: float, n_fft: int, hop: int, to
 def _launch_encode(x2d, ops, n_fft, hop, T, magnitude: bool = False) -> torch.Tensor:
     """R: ``(B, T, F, 2)`` interleaved ``(re, im)``; ``magnitude``: ``|X|``
     ``(B, T, F)``.  ``ops``: :func:`_encode_operands`, whose route
-    ``fft_covers(n_fft)`` picks."""
+    :func:`session_route` picks."""
     _require("encode", n_fft, hop)
     rows, teams = _encode_plan(n_fft, hop)
     B, F = x2d.shape[0], n_fft // 2 + 1
     a, b = ops
     if teams:
         if tuple(a.shape) != (n_fft,) or tuple(b.shape) != (2, n_fft):
-            raise ValueError("the encode's FFT route takes the window (n_fft,) and the twiddle table (2, n_fft)")
+            raise ValueError("the encode's FFT and smooth routes take the window (n_fft,) and the twiddle table "
+                             "(2, n_fft)")
         ptrs, kn = (None, None, a.data_ptr(), b.data_ptr()), 0
     else:
         ptrs, kn = (a.data_ptr(), b.data_ptr(), None, None), a.shape[0]
@@ -848,7 +898,7 @@ def _launch_encode(x2d, ops, n_fft, hop, T, magnitude: bool = False) -> torch.Te
     name = "session_magnitude" if magnitude else "session_encode"
     _build.check(code, name)
     launches[name] += 1
-    routes[name + (":fft" if teams else ":product")] += 1
+    routes[name + ":" + session_route(n_fft)] += 1
     return out
 
 
@@ -920,7 +970,7 @@ def _checked_f32(a: torch.Tensor, dev, shape, what: str) -> torch.Tensor:
 
 def _launch_roundtrip(x2d, angles, ops, n_fft, hop, T) -> torch.Tensor:
     """L (``angles=None``) and M: ``(B, T * hop)``.  ``ops``:
-    :meth:`_Session.roundtrip_operands`, whose route ``fft_covers(n_fft)``
+    :meth:`_Session.roundtrip_operands`, whose route :func:`session_route`
     picks."""
     _require("roundtrip", n_fft, hop)
     rows, teams = _roundtrip_plan(n_fft, hop)
@@ -938,7 +988,7 @@ def _launch_roundtrip(x2d, angles, ops, n_fft, hop, T) -> torch.Tensor:
     name = "session_roundtrip" if angles is None else "session_random_roundtrip"
     _build.check(code, name)
     launches[name] += 1
-    routes[name + (":fft" if teams else ":product")] += 1
+    routes[name + ":" + session_route(n_fft)] += 1
     return out
 
 
@@ -1155,12 +1205,14 @@ class _Session:
 
     def roundtrip_operands(self):
         """What L and M read besides the signal, ``(wc, ws, syn, window, wsyn,
-        twiddles)``: on the FFT route the analysis window, the synthesis
-        window over the gain and ``n_fft`` (``frames_fft.irfft_window``) and
-        the twiddle table; on the product route the window-folded bases."""
-        if fft_covers(self.n_fft):
+        twiddles)``: on the FFT and smooth routes the analysis window, the
+        synthesis window over the gain and ``n_fft``
+        (``frames_fft.irfft_window``) and the twiddle table; on the product
+        route the window-folded bases."""
+        route = session_route(self.n_fft)
+        if route != "product":
             (tw,) = _tables(fft_twiddles, self.rt.window.device, self.n_fft)
-            wsyn = irfft_window(self.rt.inv_window.to(torch.float32) / self.gain, self.n_fft)
+            wsyn = irfft_window(self.rt.inv_window.to(torch.float32) / self.gain, self.n_fft, route == "smooth")
             return (None, None, None, self.rt.window.to(torch.float32).contiguous(), wsyn.contiguous(), tw)
         return self.analysis() + (self.synthesis(), None, None, None)
 

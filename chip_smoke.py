@@ -79,11 +79,15 @@ under hann, hamming and blackman) and against a float64 oracle at 1024, 512,
 2048 and 4096 (C, D, I, K, G, H, P, S and O's synthesis at every power of
 two from 64), the factored route at 768/192 (A, B, G, H), and the product
 route at 768/256 (E, F, J, K, G, H), 768/192
-(C, D, I, K), 8192/2048 (J), 1200/300 (R, L, M, K, P, S, O's synthesis) and
-960/240 (R); the launch counters' route tally shows every main-path launch
-of the nineteen on the FFT route, and phase 4h drives the product and
-factored routes through the entry points (1200/300 sessions, the complex
-decode included, an STFT(768, 192) Griffin-Lim invert, STFT(768, 192)
+(C, D, I, K), 8192/2048 (J), 1200/300 (K, P, S, O's synthesis) and
+1344/336 (R, L, M), and the smooth route of R, L and M (the mixed-radix
+FFT) at 1200/300, 960/240, 768/192, 400/100 and 1920/480, bit-identical to
+its plain version; the launch counters' route tally shows every main-path
+launch of the nineteen on the FFT route, and phase 4h drives the smooth,
+product and factored routes through the entry points (1200/300 sessions:
+R, L, M and the magnitude encode on the smooth route, the decodes on the
+product route; 1344/336 sessions: R, L, M and the magnitude encode on the
+product route; an STFT(768, 192) Griffin-Lim invert, STFT(768, 192)
 log-mel and Polar chains' fit and forward, a DGT(768, 256) chain's fit,
 forward, ``pghi`` and ``pghi_gl``, DGT(768, 256) + PolarIF's fit and
 forward).  Phase
@@ -642,6 +646,7 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     from acids_transforms_tpu_torch.ops.cuda import frames_fft as ff
     from acids_transforms_tpu_torch.ops.cuda import stream_step as ss
 
+    t_start = time.perf_counter()
     SB, SL, CH = args.streams, STREAM_LEN, STREAM_CHUNK
     T_C = CH // HOP
     n_sf = SL // CH * T_C
@@ -664,10 +669,12 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     def route(label, fn, expect, main=True, front="fft"):
         """One run through the entry point, counters at 0 before and read
         after; the main routes' launches go into the kernels line.  Every
-        launch of the encode (R, the magnitude encode) and of the roundtrips
-        (L, M) must have taken the route ``front``: "fft" at a power-of-two
-        n_fft, "product" elsewhere; the product route's launches are counted
-        for its rows (4h)."""
+        launch of the encode (R, the magnitude encode), of the roundtrips (L,
+        M) and of the decodes must have taken the route ``front``: "fft" at a
+        power-of-two n_fft, "smooth" (R, the magnitude encode, L and M at an
+        even 5-smooth n_fft) or "product"; a dict names the route kernel by
+        kernel ("fft" for those it leaves out).  The smooth and the product
+        routes' launches are counted for their rows (4h)."""
         zero_all()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -680,12 +687,13 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         require(got == expect and others() == 0, f"{label}: expected the launches {expect}, got {got}")
         for k in ("session_encode", "session_magnitude", "session_roundtrip", "session_random_roundtrip",
                   "session_random_decode", "session_complex_decode", "gl_project_synthesis", "gl_polish"):
-            on = ss.routes.get(f"{k}:{front}", 0)
-            require(on == ss.launches[k], f"{label}: {k} launched {ss.launches[k]} times, {on} on the {front} route")
+            fk = front.get(k, "fft") if isinstance(front, dict) else front
+            on = ss.routes.get(f"{k}:{fk}", 0)
+            require(on == ss.launches[k], f"{label}: {k} launched {ss.launches[k]} times, {on} on the {fk} route")
         for k, v in got.items():
             counts[k] += v if main else 0
         for k, v in fronts.items():
-            counts[k] += v if main or front == "product" else 0
+            counts[k] += v if main or not k.endswith(":fft") else 0
         return out
 
     def generic(label, fn):
@@ -802,10 +810,12 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     # cuBLAS (contractions of n_fft for the analysis, overlap x Kp for the
     # synthesis), a few 1e-7 of the largest value; 2e-5 leaves a decade.  L
     # and M on the FFT route repeat their plain version's float32 operations
-    # in order (bit-identical on the card): 1e-6.  L and M also against a
+    # in order (bit-identical on the card): 1e-6.  On the smooth route (the
+    # mixed-radix instances, n_fft even and 5-smooth) R, L and M must be
+    # bit-identical to their plain versions.  L and M also against a
     # float64 oracle (torch.fft of the row-padded frames, |X| with the angles
     # for M, irfft times the synthesis window over the gain, overlap-added):
-    # within 1e-5 of the largest sample on both routes.
+    # within 1e-5 of the largest sample on every route.
     def oracle_roundtrip(x, rt, gain, n_fft, hop, n_frames, ang=None):
         fr = ss.session_rows(x, n_fft, hop, n_frames).double().unfold(-1, n_fft, hop) * rt.window.double()
         spec = torch.fft.rfft(fr, dim=-1)
@@ -841,31 +851,41 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         }
         torch.cuda.synchronize()
         fft = ff.fft_covers(n_fft)
+        front = ss.session_route(n_fft)
         msg = []
         for key, (k_out, p_out) in pairs.items():
             e = rel_err(k_out, p_out)
             tol = 1e-6 if fft and key in ("L", "M", "P") else 2e-5
-            same = " bit-identical" if torch.equal(k_out, p_out) else ""
-            msg.append(f"{key} {e:.3e} (tol {tol:.0e}{same})")
+            same = torch.equal(k_out, p_out)
+            msg.append(f"{key} {e:.3e} (tol {tol:.0e}{' bit-identical' if same else ''})")
             require(k_out.shape == p_out.shape and torch.isfinite(k_out).all().item(), f"{key} {label}: bad output")
             require(e <= tol, f"{key} {label} disagrees with plain")
+            require(same or key == "P" or front != "smooth", f"{key} {label}: the smooth route is not bit-identical "
+                    "to its plain version")
             if key in ("L", "M"):
                 o = oracle_roundtrip(x, rt, gain, n_fft, hop, Tn, ang if key == "M" else None)
                 e_o = rel_err(k_out.double(), o)
                 msg[-1] += f", oracle {e_o:.3e} (tol 1e-05)"
                 require(e_o <= 1e-5, f"{key} {label} disagrees with the float64 oracle")
                 del o
-            if key in ("R", "L", "M", "P") and not fft:
+            if key == "P" and not fft:
                 key += "_product"
+            elif key != "P" and front != "fft":
+                key += "_" + front
             errs[key] = max(errs.get(key, 0.0), abs_err(k_out, p_out))
-        log(f"  kernels vs plain, {label} ({'fft' if fft else 'product'} route of L and M; blocks: encode "
+        log(f"  kernels vs plain, {label} ({front} route of R, L and M; blocks: encode "
             f"{ss._encode_plan(n_fft, hop)}, roundtrip {ss._roundtrip_plan(n_fft, hop)}, decode "
             f"{ss._decode_plan(n_fft, hop)} as (rows, FFTs)): rel {', '.join(msg)}")
 
     check_kernels(f"main shape {SB} x {SL}", N_FFT, HOP, sx, CH)
     check_kernels("512/128, 3 x 20000 (ragged)", 512, 128, sx[:3, :20000].contiguous(), 2048)
     check_kernels("2048/512, 2 x 30000 (ragged)", 2048, 512, sx[:2, :30000].contiguous(), 4096)
-    check_kernels("1200/300, 4 x 40000 (ragged)", 1200, 300, sx[:4, :40000].contiguous(), 2400)
+    # the smooth route (R, L, M) at five shapes users frame audio in at 48
+    # kHz (25, 20, 16, 8.3 and 40 ms); P on its product route there; the
+    # product route of R, L and M at 1344/336 (2^6 3 7)
+    for n_s, hop_s in ((1200, 300), (960, 240), (768, 192), (400, 100), (1920, 480)):
+        check_kernels(f"{n_s}/{hop_s}, 4 x 40000 (ragged)", n_s, hop_s, sx[:4, :40000].contiguous(), 2 * n_s)
+    check_kernels("1344/336, 4 x 40000 (ragged)", 1344, 336, sx[:4, :40000].contiguous(), 2688)
 
     # P, S and O's projection synthesis by route: the FFT route at every power
     # of two it takes (hop n_fft / 4), on magnitudes with phases up to 1e3 rad
@@ -937,22 +957,23 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     # within 1e-5 of the largest value and bit-identical where nothing rounds
     # otherwise) and against the float64 oracle (torch.fft.rfft of the
     # windowed frames in float64: float32 FFT sums, within 1e-5 of the largest
-    # magnitude); the product route at 1200/300 and 960/240 against its plain
-    # version at the product's 2e-5
+    # magnitude); the smooth route at 1200/300, 960/240, 768/192, 400/100 and
+    # 1920/480 bit-identical to its plain version; the product route at
+    # 1344/336 against its plain version at the product's 2e-5
     def check_encode_routes(label, n_fft, hop, x, n_frames):
         w = torch.hann_window(n_fft, device=dev)
         ops = ss._encode_operands(w, n_fft)
-        fft = ff.fft_covers(n_fft)
+        front = ss.session_route(n_fft)
+        fft = front != "product"
         ss.reset_launches()
         spec = ss._launch_encode(x, ops, n_fft, hop, n_frames)
         mag = ss._launch_encode(x, ops, n_fft, hop, n_frames, magnitude=True)
-        front = "fft" if fft else "product"
         require(ss.routes[f"session_encode:{front}"] == 1 and ss.routes[f"session_magnitude:{front}"] == 1,
                 f"{label}: the encode took another route than {front}")
         re, im = ss.session_encode_reference(x, w, n_fft, hop, n_frames)
         plain = torch.stack([re, im], dim=-1)
         e_r, e_m = rel_err(spec, plain), rel_err(mag, torch.sqrt(re * re + im * im))
-        bit = torch.equal(spec, plain)
+        bit = torch.equal(spec, plain) and torch.equal(mag, torch.sqrt(re * re + im * im))
         fr = ss.session_rows(x, n_fft, hop, n_frames).double().unfold(-1, n_fft, hop) * w.double()
         ora = torch.fft.rfft(fr, dim=-1)
         del fr
@@ -964,7 +985,8 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
             f"{o_m:.3e} (tol 1e-05)")
         require(torch.isfinite(spec).all().item() and torch.isfinite(mag).all().item(), f"{label}: not finite")
         require(e_r <= tol and e_m <= tol and o_r <= 1e-5 and o_m <= 1e-5, f"R {label}: out of budget")
-        key = "" if fft else "_product"
+        require(bit or front != "smooth", f"R {label}: the smooth route is not bit-identical to its plain version")
+        key = "" if front == "fft" else "_" + front
         errs["R" + key] = max(errs.get("R" + key, 0.0), abs_err(spec, plain))
         errs["Rmag" + key] = max(errs.get("Rmag" + key, 0.0), abs_err(mag, torch.sqrt(re * re + im * im)))
 
@@ -973,6 +995,10 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     check_encode_routes("2048/512, 2 x 30000 (odd: 59 frames)", 2048, 512, sx[:2, :30000].contiguous(), 59)
     check_encode_routes("1200/300, 4 x 40000", 1200, 300, sx[:4, :40000].contiguous(), 136)
     check_encode_routes("960/240, 4 x 40000 (odd: 167 frames)", 960, 240, sx[:4, :40000].contiguous(), 167)
+    check_encode_routes("768/192, 4 x 40000 (odd: 209 frames)", 768, 192, sx[:4, :40000].contiguous(), 209)
+    check_encode_routes("400/100, 4 x 40000 (odd: 401 frames)", 400, 100, sx[:4, :40000].contiguous(), 401)
+    check_encode_routes("1920/480, 4 x 40000 (odd: 85 frames)", 1920, 480, sx[:4, :40000].contiguous(), 85)
+    check_encode_routes("1344/336, 4 x 40000 (odd: 121 frames)", 1344, 336, sx[:4, :40000].contiguous(), 121)
     ss.reset_launches()
     torch.cuda.empty_cache()
 
@@ -996,6 +1022,7 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
             route_ms[(name, b)] = (k_ms, g_ms)
             log(f"    B={b:3d} {name:18s}: {k_ms:9.3f} ms / {g_ms:9.3f} ms ({g_ms / k_ms:.2f}x)")
     log("  stream quality: " + json.dumps({k: round(v, 6) for k, v in quality.items()}))
+    log(f"  phase 4f {time.perf_counter() - t_start:.1f} s")
     return dict(sx=sx, mags=mags.contiguous(), rt=s_rt, chain=s_chain, n_frames=n_sf, ss=ss,
                 angles=ss.session_angles((SB,), SL // CH, T_C, F, dev, sgen(8)),
                 spec=spec_k, route=route, generic=generic, sgen=sgen, make_sc=make_sc, snr_of=snr_of)
@@ -1504,11 +1531,14 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
       recurrence and the synthesis; K against its plain versions there as in
       phase 3), and the ``OverlapAdd(1200, 300) + RealtimeSTFT(1200, 300)``
       sessions launch L (complex roundtrip, within 1e-4 of the CPU's generic
-      scan), N (``pghi``) and O (``pghi_gl``), each against the card's
-      generic scan under a generator in the same state by spectral
-      convergence within ``1.1 s + 1e-3``.  Their encode (1200/300
-      ``scan_forward``) and magnitude encodes take the product route (n_fft
-      is no power of two); those launches are the product rows' counts.
+      scan, SNR at least 100 dB after the delay), N (``pghi``) and O
+      (``pghi_gl``), each against the card's generic scan under a generator
+      in the same state by spectral convergence within ``1.1 s + 1e-3``.
+      Their encode (``scan_forward``), magnitude encodes, L and M take the
+      smooth route (1200 = 2^4 3 5^2); the decodes (S, P, O's synthesis) the
+      product route; those launches are the smooth and product rows' counts.
+      The same sessions at 1344/336 (2^6 3 7) run R, L, M and the magnitude
+      encode on the product route: those rows' counts.
     * E and F on the product route through the entry points: the DGT
       magnitude chain at 768/256 (``fuse_fit`` + ``fuse_forward`` on up to 16
       clips), its fit and forward within 1e-5 / 1e-4 of the eager chain's, as
@@ -1521,6 +1551,7 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     from acids_transforms_tpu_torch.ops.cuda import pghi_kernel as pk
 
     sgen, route, generic = stream["sgen"], stream["route"], stream["generic"]
+    t_start = time.perf_counter()
     log("[4h] the dispatch outside the JAX package's gates: the eager route where no kernel covers the shape, "
         "the kernels where they do")
 
@@ -1595,20 +1626,27 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     chain = T.OverlapAdd(n_fft, hop) + T.RealtimeSTFT(n_fft=n_fft, hop_length=hop)
     c_p = T.OverlapAdd(n_fft, hop, device="cpu") + T.RealtimeSTFT(n_fft=n_fft, hop_length=hop, device="cpu")
     n_ch = xs.shape[-1] // chunk
-    y_c = route("1200/300 complex roundtrip (the product route)", lambda: streaming.scan_roundtrip(chain, xs, chunk),
-                {"session_roundtrip": 1}, main=False, front="product")
-    # R on the product route (n_fft 1200 is no power of two), counted for its row
-    f_c, _ = route("1200/300 encode: scan_forward (the product route)",
+    y_c = route("1200/300 complex roundtrip (the smooth route)", lambda: streaming.scan_roundtrip(chain, xs, chunk),
+                {"session_roundtrip": 1}, main=False, front="smooth")
+    # R on the smooth route (n_fft 1200 = 2^4 3 5^2), counted for its row
+    f_c, _ = route("1200/300 encode: scan_forward (the smooth route)",
                    lambda: streaming.scan_forward(chain, xs, chunk), {"session_encode": 1}, main=False,
-                   front="product")
+                   front="smooth")
     f_p, _ = streaming.scan_forward(c_p, xs.cpu(), chunk)
     e_f = crel(f_c.cpu(), f_p)
     log(f"    the session vs the CPU's generic scan: rel {e_f:.3e} (tol 1e-04)")
     require(e_f <= 1e-4, "1200/300 encode: the session differs from the generic scan")
     y_p = streaming.scan_roundtrip(c_p, xs.cpu(), chunk)
     e_y = rel_err(y_c.cpu(), y_p)
-    log(f"    the session vs the CPU's generic scan: rel {e_y:.3e} (tol 1e-04)")
-    require(e_y <= 1e-4, "1200/300 complex roundtrip: the session differs from the generic scan")
+
+    def snr_db_of(x, y, n_fft, hop, chunk):
+        d, n = n_fft - hop, x.shape[-1]
+        ref, out = x[..., : n - d - chunk], y[..., d: n - chunk]
+        return 10 * math.log10((ref ** 2).sum().item() / max(((out - ref) ** 2).sum().item(), 1e-300))
+    snr_c = snr_db_of(xs, y_c, n_fft, hop, chunk)
+    log(f"    the session vs the CPU's generic scan: rel {e_y:.3e} (tol 1e-04); SNR after the delay {snr_c:.2f} dB "
+        f"(must be >= 100)")
+    require(e_y <= 1e-4 and snr_c >= 100.0, "1200/300 complex roundtrip: the session differs from the generic scan")
     # S on the product route: the complex decode of that encode, against the
     # CPU's generic scan
     y_s = route("1200/300 complex decode: scan_invert (the product route)",
@@ -1619,9 +1657,9 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     require(torch.isfinite(y_s).all().item() and e_s <= 1e-4,
             "1200/300 complex decode: the session differs from the generic scan")
     # M on the product route, against the card's generic scan with a generator in the same state
-    y_m = route("1200/300 random roundtrip (the product route)",
+    y_m = route("1200/300 random roundtrip (the smooth route)",
                 lambda: streaming.scan_roundtrip(chain, xs, chunk, "random", generator=sgen(154)),
-                {"session_random_roundtrip": 1}, main=False, front="product")
+                {"session_random_roundtrip": 1}, main=False, front="smooth")
     y_mg = generic("1200/300 random generic", lambda: streaming.scan_roundtrip(
         chain, xs, chunk, "random", generator=sgen(154), backend="generic"))
     e_m = rel_err(y_m, y_mg)
@@ -1651,7 +1689,8 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
                 f"1200/300 {mode}: must plan the session")
         y_k = route(f"1200/300 {mode} roundtrip",
                     lambda: streaming.scan_roundtrip(chain, xs, chunk, mode, generator=sgen(153)), expect,
-                    main=False, front="product")
+                    main=False, front={"session_magnitude": "smooth", "session_random_decode": "product",
+                                       "gl_project_synthesis": "product"})
         y_g = generic(f"1200/300 {mode} generic", lambda: streaming.scan_roundtrip(
             chain, xs, chunk, mode, generator=sgen(153), backend="generic"))
         s_k, s_g = sc(y_k), sc(y_g)
@@ -1661,6 +1700,54 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
                 f"1200/300 {mode}: the session converges worse than the generic scan")
         if mode == "pghi_gl":       # the two-launch polish: O's analysis row counts these
             counts["gl_project_analysis"] += n_ch * iters
+
+    # R, L, M and the magnitude encode on the product route: the same
+    # sessions at 1344/336 (2^6 3 7: neither the FFT nor the smooth route)
+    n_x, hop_x, chunk_x = 1344, 336, 2688
+    xs_x = mono[:4, :8 * chunk_x].contiguous()
+    chain_x = T.OverlapAdd(n_x, hop_x) + T.RealtimeSTFT(n_fft=n_x, hop_length=hop_x)
+    c_px = T.OverlapAdd(n_x, hop_x, device="cpu") + T.RealtimeSTFT(n_fft=n_x, hop_length=hop_x, device="cpu")
+    require(stream["ss"].session_route(n_x) == "product", "1344/336 must take the product route")
+    y_x = route("1344/336 complex roundtrip (the product route)",
+                lambda: streaming.scan_roundtrip(chain_x, xs_x, chunk_x), {"session_roundtrip": 1}, main=False,
+                front="product")
+    f_x, _ = route("1344/336 encode: scan_forward (the product route)",
+                   lambda: streaming.scan_forward(chain_x, xs_x, chunk_x), {"session_encode": 1}, main=False,
+                   front="product")
+    e_fx = crel(f_x.cpu(), streaming.scan_forward(c_px, xs_x.cpu(), chunk_x)[0])
+    e_yx = rel_err(y_x.cpu(), streaming.scan_roundtrip(c_px, xs_x.cpu(), chunk_x))
+    snr_x = snr_db_of(xs_x, y_x, n_x, hop_x, chunk_x)
+    log(f"    the sessions vs the CPU's generic scan: encode rel {e_fx:.3e}, complex roundtrip rel {e_yx:.3e} (tol "
+        f"1e-04); SNR after the delay {snr_x:.2f} dB (must be >= 100)")
+    require(e_fx <= 1e-4 and e_yx <= 1e-4 and snr_x >= 100.0, "1344/336: the sessions differ from the generic scan")
+    y_mx = route("1344/336 random roundtrip (the product route)",
+                 lambda: streaming.scan_roundtrip(chain_x, xs_x, chunk_x, "random", generator=sgen(155)),
+                 {"session_random_roundtrip": 1}, main=False, front="product")
+    e_mx = rel_err(y_mx, generic("1344/336 random generic", lambda: streaming.scan_roundtrip(
+        chain_x, xs_x, chunk_x, "random", generator=sgen(155), backend="generic")))
+    log(f"    the session vs the generic scan (same seed): rel {e_mx:.3e} (tol 1e-04)")
+    require(torch.isfinite(y_mx).all().item() and e_mx <= 1e-4, "1344/336 random roundtrip: differs from the scan")
+    w_x = torch.hann_window(n_x, device=dev)
+
+    def sc_x(y):
+        d, n = n_x - hop_x, xs_x.shape[-1]
+
+        def spec(v):
+            return torch.stft(v, n_x, hop_x, window=w_x, center=True, pad_mode="reflect", return_complex=True).abs()
+        ref, m = spec(xs_x[..., : n - d]), spec(y[..., d:n])
+        k = min(m.shape[-1], ref.shape[-1]) - 2
+        return (torch.linalg.norm(m[..., 2:k] - ref[..., 2:k]) / torch.linalg.norm(ref[..., 2:k])).item()
+    y_kx = route("1344/336 pghi roundtrip (the product route)",
+                 lambda: streaming.scan_roundtrip(chain_x, xs_x, chunk_x, "pghi", generator=sgen(156)),
+                 {"session_magnitude": 1, "rt_pghi_phases": 1, "session_random_decode": 1}, main=False,
+                 front="product")
+    y_gx = generic("1344/336 pghi generic", lambda: streaming.scan_roundtrip(
+        chain_x, xs_x, chunk_x, "pghi", generator=sgen(156), backend="generic"))
+    s_k, s_g = sc_x(y_kx), sc_x(y_gx)
+    log(f"    vs the generic scan: spectral convergence {s_k:.5f} / {s_g:.5f} (must be <= {1.1 * s_g + 1e-3:.5f})")
+    require(y_kx.shape == y_gx.shape and torch.isfinite(y_kx).all().item() and s_k <= 1.1 * s_g + 1e-3,
+            "1344/336 pghi: the session converges worse than the generic scan")
+    del y_x, f_x, y_mx, y_kx, y_gx
 
     # C and D on the product route: the Griffin-Lim invert of an STFT(768,
     # 192, hann) (n_fft no power of two) on 16 clips, converging like the
@@ -1833,6 +1920,7 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
         f"{e_y:.3e} (tol 1e-04)")
     require(torch.isfinite(y_r).all().item() and e_m <= 1e-5 and e_y <= 1e-4,
             "DGT(768, 256) + PolarIF: the product route differs from the eager chain")
+    log(f"  phase 4h {time.perf_counter() - t_start:.1f} s")
 
 
 def snr_db(ref: torch.Tensor, rec: torch.Tensor) -> float:
@@ -2993,7 +3081,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line.lower():
             log("    " + line.strip())
     for name, res in _build.kernel_resources().items():
-        if "gl_polish" in name or "rt_pghi" in name:
+        if any(k in name for k in ("gl_polish", "rt_pghi", "session_encode_kernel", "session_roundtrip_fft")):
             log(f"    {name}: {res['registers']} registers, spill stores / loads {res['spill_stores']} / "
                 f"{res['spill_loads']} B")
     for tile_t in spectral.TILES:
@@ -3066,6 +3154,20 @@ def main() -> int:
                     == ss._roundtrip_smem_bytes(rows, ov_s, hop_s, kn, kp)
                     and lib.att_session_decode_smem_bytes(rows, ov_s, kp) == ss._decode_smem_bytes(rows, ov_s, kp),
                     "session kernels' shared-memory size: wrapper and source disagree")
+    # the smooth route of R / the magnitude encode and of L / M: both layouts
+    # at every size it takes from 64 to 4096 with hop n_fft / 4, at the plans'
+    # team counts and fewer
+    for n_fft_s in [n for n in range(64, 4097, 4) if ff.fft_covers_smooth(n) and (n // 4) % 4 == 0]:
+        hop_s = n_fft_s // 4
+        (rows_e, teams_e), (rows_r, teams_r) = ss._encode_plan(n_fft_s, hop_s), ss._roundtrip_plan(n_fft_s, hop_s)
+        require(teams_e > 0 and teams_r > 0 and ss.session_route(n_fft_s) == "smooth",
+                f"{n_fft_s}/{hop_s}: the encode and the roundtrip must take the smooth route")
+        for tm in sorted({1, teams_e}):
+            require(lib.att_session_encode_fft_smem_bytes(rows_e, hop_s, n_fft_s, tm)
+                    == ss._encode_fft_smem_bytes(rows_e, hop_s, n_fft_s, tm)
+                    and lib.att_session_roundtrip_fft_smem_bytes(rows_r, 4, hop_s, tm)
+                    == ss._roundtrip_fft_smem_bytes(rows_r, 4, hop_s, tm),
+                    f"{n_fft_s}/{hop_s}: the smooth route's shared-memory size: wrapper and source disagree")
     # the FFT route of R / the magnitude encode and of E / F: both layouts at
     # every size the route takes, with the plans' team counts and fewer
     n_fft_checked = 0
@@ -4950,16 +5052,17 @@ def main() -> int:
     # the angles read and, per bin, |X|, a sincos and two products (26
     # operations); P reads magnitudes and angles, writes the audio, one
     # inverse FFT, the window, the overlap-add and 22 operations per bin.
-    # The design of P and S, and the product route of L and M (1200/300
-    # here, 592 frames a session), runs the full-length products: the
-    # analysis of every frame a block holds (n_fft rounded to 32 x 128-bin
-    # column tiles, cos and sin) and the synthesis of 8 ceil(R / 8) chunks x
-    # overlap x Kp x hop per block; R's FFT route does fft_design_flops, its
-    # product route the analysis product; the FFT route of L and M a forward
-    # and an inverse FFT (fft_design_flops each) of rows + 2 overlap frames a
-    # block of rows chunks.  The yardsticks (timed, used nowhere):
-    # torch.stft(center=False) on the padded rows; torch.fft.irfft x the
-    # synthesis window + fold.
+    # The design of P and S (their product route at 1200/300, 592 frames a
+    # session), and the product route of R, L and M (1344/336 = 2^6 3 7, 528
+    # frames), runs the full-length products: the analysis of every frame a
+    # block holds (n_fft rounded to 32 x 128-bin column tiles, cos and sin)
+    # and the synthesis of 8 ceil(R / 8) chunks x overlap x Kp x hop per
+    # block; R's FFT route does fft_design_flops, its smooth route (1200/300)
+    # smooth_design_flops, its product route the analysis product; the FFT
+    # and smooth routes of L and M a forward and an inverse FFT of rows + 2
+    # overlap frames a block of rows chunks.  The yardsticks (timed, used
+    # nowhere): torch.stft(center=False) on the padded rows; torch.fft.irfft
+    # x the synthesis window + fold.
     ss = stream["ss"]
     sx, s_rt, s_mags, s_ang, n_sf = (stream[k] for k in ("sx", "rt", "mags", "angles", "n_frames"))
     SB = sx.shape[0]
@@ -4980,21 +5083,32 @@ def main() -> int:
         rows = ss.session_rows(sx, N_FFT, HOP, n_sf)
         return torch.stft(rows, N_FFT, HOP, window=s_rt.window, center=False, return_complex=True)
 
-    n_fft_q, hop_q = 1200, 300                               # the product route's shape
+    def smooth_design_flops(n, frames):
+        """Operations the mixed-radix frames_rfft (fft_smem.cuh, kSmooth)
+        does for `frames` frames of n points, two a pair: the window (2 n),
+        per butterfly of radix 5 / 3 / 4 / 2 48 / 16 / 16 / 4 operations and
+        6 a twiddle (r - 1 of them, none in the last stage), the split (8 a
+        bin)."""
+        bfly, rad = {5: 48, 3: 16, 4: 16, 2: 4}, ff.fft_radices(n)
+        pair = 2.0 * n + 8.0 * (n // 2 + 1)
+        for st, r in enumerate(rad):
+            pair += (n / r) * (bfly[r] + (6.0 * (r - 1) if st < len(rad) - 1 else 0.0))
+        return pair * frames / 2.0
+
+    n_fft_q, hop_q = 1200, 300          # the smooth route's shape (R, L, M), the decodes' product route's
     F_q, T_q = n_fft_q // 2 + 1, -(-STREAM_LEN // 2400) * 8
     w_q = torch.hann_window(n_fft_q, device=dev)
     q_ops = ss._encode_operands(w_q, n_fft_q)
     q_fr = float(SB * T_q)
     q_fft = 2.5 * n_fft_q * math.log2(n_fft_q) * q_fr
-    q_ana = 4.0 * q_fr * ss._k_analysis(n_fft_q) * 128 * -(-F_q // 128)
 
     def lib_encode_q():
         rows = ss.session_rows(sx, n_fft_q, hop_q, T_q)
         return torch.stft(rows, n_fft_q, hop_q, window=w_q, center=False, return_complex=True)
 
-    # L and M on the product route at 1200/300: the same functions, the
-    # window-folded products (rows + overlap - 1 frames' analysis, the
-    # synthesis product), overlap 4 and gain 4
+    # L and M on the smooth route at 1200/300: the same functions, a forward
+    # and an inverse mixed-radix FFT of rows + 2 overlap frames a block of
+    # rows chunks, overlap 4 and gain 4
     ov_q = n_fft_q // hop_q
     q_chain = T.OverlapAdd(n_fft_q, hop_q) + T.RealtimeSTFT(n_fft=n_fft_q, hop_length=hop_q)
     q_rt = q_chain[1]
@@ -5003,10 +5117,43 @@ def main() -> int:
                                      generator=torch.Generator(device=dev).manual_seed(args.seed + 54))
     r_q = ss._roundtrip_plan(n_fft_q, hop_q)[0]
     t_q = -(-T_q // r_q)
-    q_design = (4.0 * SB * (T_q + t_q * (ov_q - 1)) * ss._k_analysis(n_fft_q) * 128 * -(-F_q // 128)
-                + 2.0 * SB * t_q * 8 * -(-r_q // 8) * ov_q * ss._k_padded(F_q) * hop_q)
+    q_design = 2.0 * smooth_design_flops(n_fft_q, SB * t_q * (r_q + 2 * ov_q)) + 3.0 * n_fft_q * q_fr
     q_need = 2 * q_fft + 3.0 * n_fft_q * q_fr
     q_out = 4.0 * SB * T_q * hop_q
+
+    # R, L, M and the magnitude encode on the product route at 1344/336
+    # (2^6 3 7): the window-folded products (rows + overlap - 1 frames'
+    # analysis, the synthesis product), overlap 4 and gain 4
+    n_fft_x, hop_x = 1344, 336
+    F_x, T_x, ov_x = n_fft_x // 2 + 1, -(-STREAM_LEN // 2688) * 8, n_fft_x // hop_x
+    w_x = torch.hann_window(n_fft_x, device=dev)
+    x_ops = ss._encode_operands(w_x, n_fft_x)
+    x_fr = float(SB * T_x)
+    x_fft = 2.5 * n_fft_x * math.log2(n_fft_x) * x_fr
+    x_ana = 4.0 * x_fr * ss._k_analysis(n_fft_x) * 128 * -(-F_x // 128)
+    x_chain = T.OverlapAdd(n_fft_x, hop_x) + T.RealtimeSTFT(n_fft=n_fft_x, hop_length=hop_x)
+    x_rt = x_chain[1]
+    x_rt_ops = ss._Session(x_chain, 8).roundtrip_operands()
+    x_ang = 2 * math.pi * torch.rand((SB, T_x, F_x), device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(args.seed + 56))
+    r_x = ss._roundtrip_plan(n_fft_x, hop_x)[0]
+    t_x = -(-T_x // r_x)
+    x_design = (4.0 * SB * (T_x + t_x * (ov_x - 1)) * ss._k_analysis(n_fft_x) * 128 * -(-F_x // 128)
+                + 2.0 * SB * t_x * 8 * -(-r_x // 8) * ov_x * ss._k_padded(F_x) * hop_x)
+    x_need = 2 * x_fft + 3.0 * n_fft_x * x_fr
+    x_out = 4.0 * SB * T_x * hop_x
+    require(ss.session_route(n_fft_q) == "smooth" and ss.session_route(n_fft_x) == "product"
+            and x_ops[0].shape[0] == ss._k_analysis(n_fft_x), "phase 5: the smooth and product shapes' routes")
+
+    def lib_encode_x():
+        rows = ss.session_rows(sx, n_fft_x, hop_x, T_x)
+        return torch.stft(rows, n_fft_x, hop_x, window=w_x, center=False, return_complex=True)
+
+    def lib_synth_x(S):
+        fr = torch.fft.irfft(S, n=n_fft_x) * (x_rt.inv_window / ov_x)
+        y = torch.nn.functional.fold(fr.transpose(1, 2), (1, (T_x - 1) * hop_x + n_fft_x), (1, n_fft_x),
+                                     stride=(1, hop_x))
+        return y.reshape(SB, -1)[:, : T_x * hop_x]
 
     def lib_synth_q(S):
         fr = torch.fft.irfft(S, n=n_fft_q) * (q_rt.inv_window / ov_q)
@@ -5041,12 +5188,18 @@ def main() -> int:
              plain=lambda: ss.session_encode_reference(sx, s_rt.window, N_FFT, HOP, n_sf),
              library=lib_encode, bound=bound_of(s_in + s_spec, s_fft + N_FFT * s_fr),
              ceiling=ceiling_of(fft_design_flops(N_FFT, s_fr))),
-        dict(key="R_product", name="session_encode_product", source=stream_src, front_end="product",
-             replaces=stream_tpu + ":1670", launches=counts["session_encode:product"],
+        dict(key="R_smooth", name="session_encode_smooth", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="smooth", replaces=stream_tpu + ":1670", launches=counts["session_encode:smooth"],
              run=lambda: ss._launch_encode(sx, q_ops, n_fft_q, hop_q, T_q),
              plain=lambda: ss.session_encode_reference(sx, w_q, n_fft_q, hop_q, T_q),
              library=lib_encode_q, bound=bound_of(s_in + 8.0 * q_fr * F_q, q_fft + n_fft_q * q_fr),
-             ceiling=ceiling_of(q_ana)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_q, q_fr))),
+        dict(key="R_product", name="session_encode_product", source=stream_src, front_end="product",
+             replaces=stream_tpu + ":1670", launches=counts["session_encode:product"],
+             run=lambda: ss._launch_encode(sx, x_ops, n_fft_x, hop_x, T_x),
+             plain=lambda: ss.session_encode_reference(sx, w_x, n_fft_x, hop_x, T_x),
+             library=lib_encode_x, bound=bound_of(s_in + 8.0 * x_fr * F_x, x_fft + n_fft_x * x_fr),
+             ceiling=ceiling_of(x_ana)),
         dict(key="L", name="session_roundtrip", source=stream_src + " (+ csrc/fft_smem.cuh)", front_end="fft",
              replaces=stream_tpu + ":211", launches=counts["session_roundtrip:fft"],
              run=lambda: ss._launch_roundtrip(sx, None, s_rt_ops, N_FFT, HOP, n_sf),
@@ -5062,22 +5215,37 @@ def main() -> int:
              library=lambda: lib_synth(torch.polar(lib_encode().transpose(1, 2).abs(), s_ang)),
              bound=bound_of(s_in + s_out + 4.0 * s_fr * F, rt_need + 26.0 * s_fr * F),
              ceiling=ceiling_of(rt_design + 26.0 * s_fr * F)),
-        dict(key="L_product", name="session_roundtrip_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
-             front_end="product", replaces=stream_tpu + ":211", launches=counts["session_roundtrip:product"],
+        dict(key="L_smooth", name="session_roundtrip_smooth", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="smooth", replaces=stream_tpu + ":211", launches=counts["session_roundtrip:smooth"],
              run=lambda: ss._launch_roundtrip(sx, None, q_rt_ops, n_fft_q, hop_q, T_q),
              plain=lambda: ss.session_roundtrip_reference(sx, q_rt.window, q_rt.inv_window, float(ov_q), n_fft_q,
                                                           hop_q, T_q),
              library=lambda: lib_synth_q(lib_encode_q().transpose(1, 2)),
              bound=bound_of(s_in + q_out, q_need), ceiling=ceiling_of(q_design)),
-        dict(key="M_product", name="session_random_roundtrip_product",
-             source=stream_src + " (+ csrc/synth_ola.cuh)", front_end="product",
-             replaces=stream_tpu + ":372", launches=counts["session_random_roundtrip:product"],
+        dict(key="M_smooth", name="session_random_roundtrip_smooth", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="smooth", replaces=stream_tpu + ":372", launches=counts["session_random_roundtrip:smooth"],
              run=lambda: ss._launch_roundtrip(sx, q_ang, q_rt_ops, n_fft_q, hop_q, T_q),
              plain=lambda: ss.session_roundtrip_reference(sx, q_rt.window, q_rt.inv_window, float(ov_q), n_fft_q,
                                                           hop_q, T_q, angles=q_ang),
              library=lambda: lib_synth_q(torch.polar(lib_encode_q().transpose(1, 2).abs(), q_ang)),
              bound=bound_of(s_in + q_out + 4.0 * q_fr * F_q, q_need + 26.0 * q_fr * F_q),
              ceiling=ceiling_of(q_design + 26.0 * q_fr * F_q)),
+        dict(key="L_product", name="session_roundtrip_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
+             front_end="product", replaces=stream_tpu + ":211", launches=counts["session_roundtrip:product"],
+             run=lambda: ss._launch_roundtrip(sx, None, x_rt_ops, n_fft_x, hop_x, T_x),
+             plain=lambda: ss.session_roundtrip_reference(sx, x_rt.window, x_rt.inv_window, float(ov_x), n_fft_x,
+                                                          hop_x, T_x),
+             library=lambda: lib_synth_x(lib_encode_x().transpose(1, 2)),
+             bound=bound_of(s_in + x_out, x_need), ceiling=ceiling_of(x_design)),
+        dict(key="M_product", name="session_random_roundtrip_product",
+             source=stream_src + " (+ csrc/synth_ola.cuh)", front_end="product",
+             replaces=stream_tpu + ":372", launches=counts["session_random_roundtrip:product"],
+             run=lambda: ss._launch_roundtrip(sx, x_ang, x_rt_ops, n_fft_x, hop_x, T_x),
+             plain=lambda: ss.session_roundtrip_reference(sx, x_rt.window, x_rt.inv_window, float(ov_x), n_fft_x,
+                                                          hop_x, T_x, angles=x_ang),
+             library=lambda: lib_synth_x(torch.polar(lib_encode_x().transpose(1, 2).abs(), x_ang)),
+             bound=bound_of(s_in + x_out + 4.0 * x_fr * F_x, x_need + 26.0 * x_fr * F_x),
+             ceiling=ceiling_of(x_design + 26.0 * x_fr * F_x)),
         dict(key="P", name="session_random_decode", source=stream_src + " (+ csrc/fft_smem.cuh)", front_end="fft",
              replaces=stream_tpu + ":1328", launches=counts["session_random_decode:fft"],
              run=lambda: ss._launch_decode(s_mags, s_ang, s_syn, N_FFT, HOP),
@@ -5118,13 +5286,20 @@ def main() -> int:
              plain=lambda: ss.session_magnitude_reference(sx, s_rt.window, N_FFT, HOP, n_sf),
              library=lambda: lib_encode().abs(), bound=bound_of(s_in + s_spec / 2, s_fft + (N_FFT + 4.0 * F) * s_fr),
              ceiling=ceiling_of(fft_design_flops(N_FFT, s_fr) + 4.0 * s_fr * F)),
-        dict(key="Rmag_product", name="session_magnitude_encode_product", source=stream_src,
-             front_end="product", replaces=stream_tpu + ":602", launches=counts["session_magnitude:product"],
+        dict(key="Rmag_smooth", name="session_magnitude_encode_smooth", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="smooth", replaces=stream_tpu + ":602", launches=counts["session_magnitude:smooth"],
              run=lambda: ss._launch_encode(sx, q_ops, n_fft_q, hop_q, T_q, magnitude=True),
              plain=lambda: ss.session_magnitude_reference(sx, w_q, n_fft_q, hop_q, T_q),
              library=lambda: lib_encode_q().abs(),
              bound=bound_of(s_in + 4.0 * q_fr * F_q, q_fft + (n_fft_q + 4.0 * F_q) * q_fr),
-             ceiling=ceiling_of(q_ana + 4.0 * q_fr * F_q)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_q, q_fr) + 4.0 * q_fr * F_q)),
+        dict(key="Rmag_product", name="session_magnitude_encode_product", source=stream_src,
+             front_end="product", replaces=stream_tpu + ":602", launches=counts["session_magnitude:product"],
+             run=lambda: ss._launch_encode(sx, x_ops, n_fft_x, hop_x, T_x, magnitude=True),
+             plain=lambda: ss.session_magnitude_reference(sx, w_x, n_fft_x, hop_x, T_x),
+             library=lambda: lib_encode_x().abs(),
+             bound=bound_of(s_in + 4.0 * x_fr * F_x, x_fft + (n_fft_x + 4.0 * F_x) * x_fr),
+             ceiling=ceiling_of(x_ana + 4.0 * x_fr * F_x)),
         dict(key="RT", name="rt_pghi_phases", source="acids_transforms_tpu_torch/csrc/pghi.cu",
              replaces=stream_tpu + ":668", launches=counts["rt_pghi_phases"],
              run=lambda: ss._launch_rt_pghi(rt_mag, rt_ang, *rt_args),

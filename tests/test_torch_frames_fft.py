@@ -30,7 +30,7 @@ from acids_transforms_tpu.ops.pallas import stream_step as JK
 import acids_transforms_tpu_torch.transforms as PT
 from acids_transforms_tpu_torch.ops.cuda import spectral as SP
 from acids_transforms_tpu_torch.ops.cuda import stream_step as PK
-from acids_transforms_tpu_torch.ops.cuda.frames_fft import fft_covers, frames_rfft_reference
+from acids_transforms_tpu_torch.ops.cuda.frames_fft import fft_covers, fft_covers_smooth, frames_rfft_reference
 from acids_transforms_tpu_torch.ops.fft import _dft_matrices
 from acids_transforms_tpu_torch.ops.windows import gaussian_dgt_window, get_window
 from test_torch_common import make_audio, rel, t2n
@@ -151,7 +151,7 @@ def test_route_rule_and_coverage():
         if old_encode:
             assert PK.kernel_covers("encode", n_fft, hop), (n_fft, hop)
             rows, teams = PK._encode_plan(n_fft, hop)
-            assert (teams > 0) == fft_covers(n_fft), (n_fft, hop)
+            assert (teams > 0) == (fft_covers(n_fft) or fft_covers_smooth(n_fft)), (n_fft, hop)
             if teams:
                 assert rows % 2 == 0 and PK._encode_fft_smem_bytes(rows, hop, n_fft, teams) <= PK.MAX_SMEM
         # E and F (the full-K gate and tile before the FFT route)
@@ -173,7 +173,9 @@ def test_route_rule_and_coverage():
                 assert SP._kernel_plan(n_fft, hop, (0.5, -0.25)) == (SP._pick_tile(hop, n_fft // hop, F), 0)
     # the named shapes, and the main shape
     assert PK._encode_plan(1024, 256) == (32, 4) and SP._kernel_plan(1024, 256, None) == (16, 4)
-    assert PK._encode_plan(1200, 300)[1] == 0 and PK._encode_plan(960, 240)[1] == 0
+    # 1200 and 960 (5-smooth) on the smooth route, 1344 = 2^6 3 7 on the product
+    assert PK._encode_plan(1200, 300) == (16, 2) and PK._encode_plan(960, 240)[1] > 0
+    assert PK._encode_plan(1344, 336)[1] == 0
     assert SP._kernel_plan(768, 256, None)[1] == 0
     assert SP._kernel_plan(4096, 1024, None)[0] == 8       # n_fft 4096: a tile of 8 frames
 
@@ -185,10 +187,11 @@ def test_no_route_counted_on_the_cpu():
     PK.make_fused_forward_session(pc, 1024)(torch.zeros(2, 3000))
     SP.fused_melspec(torch.zeros(2, 3000), 512, 128, taps=None, window=torch.ones(512))
     assert not any(PK.routes.values()) and not any(SP.routes.values())
-    assert set(PK.routes) == {"session_encode:fft", "session_encode:product",
-                              "session_magnitude:fft", "session_magnitude:product",
-                              "session_roundtrip:fft", "session_roundtrip:product",
-                              "session_random_roundtrip:fft", "session_random_roundtrip:product",
+    assert set(PK.routes) == {"session_encode:fft", "session_encode:smooth", "session_encode:product",
+                              "session_magnitude:fft", "session_magnitude:smooth", "session_magnitude:product",
+                              "session_roundtrip:fft", "session_roundtrip:smooth", "session_roundtrip:product",
+                              "session_random_roundtrip:fft", "session_random_roundtrip:smooth",
+                              "session_random_roundtrip:product",
                               "session_random_decode:fft", "session_random_decode:product",
                               "session_complex_decode:fft", "session_complex_decode:product",
                               "gl_project_synthesis:fft", "gl_project_synthesis:product", "gl_polish:fft"}
