@@ -32,9 +32,11 @@
 //       _session_pghi_gl_kernel's projections (O): frames_irfft, then frames_rfft
 // and, as the mixed-radix route (template argument kSmooth = true) where
 // fft_covers_smooth() takes n_fft (even, 2^a 3^b 5^c, 64 to 4096, no power of
-// two: 1200, 960, 768, 400, 1920, ...), in R, the magnitude encode of N, L and
-// M only (session_encode_kernel<., true, true>, session_roundtrip_fft_kernel<.,
-// true>); every other kernel keeps its product route at those sizes.
+// two: 1200, 960, 768, 400, 1920, ...), in R, the magnitude encode of N, L, M,
+// and the decodes P, S and O's projection synthesis
+// (session_encode_kernel<., true, true>, session_roundtrip_fft_kernel<., true>,
+// session_decode_fft_kernel<., true>); every other kernel keeps its product
+// route at those sizes.
 //
 // What they compute.  frames_rfft: X_r[k] = sum_n w[n] xs[r hop + n] e^{-2 pi
 // i n k / n} for k <= n / 2 of every frame r < n_frames of a sample buffer
@@ -775,11 +777,13 @@ __device__ void frames_irfft_classes(int n_frames, int stride, int n, const FftS
 // into a sample buffer with no atomics, and each sample collects its terms in
 // class order.  The twiddles must have been staged into s and wsyn (n floats of
 // shared memory) written before the call: it starts with a barrier, and ends
-// with one.
-template <typename Load, typename Emit>
+// with one.  kSmooth: the mixed-radix route (fft_covers_smooth(n)), twiddles
+// staged by fft_stage<true> into an area carved by carve_fft<true>, and wsyn
+// from irfft_window(..., smooth=True).
+template <bool kSmooth = false, typename Load, typename Emit>
 __device__ void frames_irfft(int n_frames, int stride, int n, FftSmem s, const float* wsyn,
                              int teams, Load load, Emit emit) {
-    frames_irfft_classes(
+    frames_irfft_classes<kSmooth>(
         n_frames, stride, n, s, wsyn, teams, [](const FftTeam&, bool, int, int, bool) {},
         [&](const FftTeam&, int r0, int r1, bool two, int k, float& ar, float& ai, float& br,
             float& bi) {

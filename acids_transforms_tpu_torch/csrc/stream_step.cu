@@ -10,14 +10,16 @@
 //   session_roundtrip_fft_kernel<1>, session_roundtrip_kernel<., 1>
 //                                    <- _session_random_kernel         (make_fused_random_roundtrip)
 //   (the encodes' and the roundtrips' kSmooth instances: the same four on the
-//   mixed-radix route, where fft_covers_smooth(n_fft): 1200, 960, 768, ...)
+//   mixed-radix route, where fft_covers_smooth(n_fft): 1200, 960, 768, ...;
+//   the decodes' likewise, session_decode_fft_kernel<., true> below)
 //   session_decode_kernel<., false>  <- _session_random_invert_kernel  (make_fused_random_invert;
 //                                       also the synthesis of the RT-PGHI sessions N and Q, with
 //                                       the recurrence's phases as its angles)
 //   session_decode_kernel<., true>   <- _session_complex_invert_kernel (make_fused_complex_invert)
 //   session_decode_fft_kernel<false / true>
 //                                    <- the same two (and O's projection synthesis) where
-//                                       n_fft is a power of two from 64 to 4096 (the FFT route)
+//                                       n_fft is a power of two from 64 to 4096 (the FFT route);
+//                                       its kSmooth instances where fft_covers_smooth(n_fft)
 //   gl_polish_fft_kernel<.>          <- the Griffin-Lim polish of _session_pghi_gl_kernel (O):
 //                                       every projection of a chunk in one launch, where n_fft
 //                                       is a power of two from 64 to 4096 and the grid fits
@@ -59,7 +61,9 @@
 // (angle) of the input, then the same synthesis; where fft_covers(n_fft),
 // fft_smem.cuh:frames_irfft of the input spectra instead (the FFT route:
 // session_decode_fft_kernel, the synthesis half of the roundtrips' FFT route,
-// sincosf and two products a bin, no basis).
+// sincosf and two products a bin, no basis), and on the smooth route where
+// fft_covers_smooth(n_fft) its mixed-radix instance
+// (session_decode_fft_kernel<., true>).
 //
 // What bounds them on this card: the functions are bound by bytes (an FFT
 // per frame is 2.5 n_fft log2 n_fft operations, far below the fp32 ridge of
@@ -501,10 +505,11 @@ __global__ void __launch_bounds__(kThreads) session_decode_kernel(SessionArgs a)
     synth_ola_tile<kRPT, kSumFold>(S, stage, a.syn, Kp, a.hop, a.overlap, j0, j_end, a.out + (size_t)b * T * a.hop);
 }
 
-// The decode's FFT route: the rows chunks of output, then frames_irfft's
-// area, whose window slot holds wsyn.
+// The decode's FFT and smooth routes: the rows chunks of output, then
+// frames_irfft's area (that of the route n takes), whose window slot holds
+// wsyn.
 __host__ __device__ inline size_t decode_fft_smem_floats(int rows, int hop, int n, int teams) {
-    return (size_t)rows * hop + fft_smem_floats(n, teams);
+    return (size_t)rows * hop + fft_area_floats(n, teams);
 }
 
 // P (kComplex = false), S and O's projection synthesis on the FFT route
@@ -521,7 +526,10 @@ __host__ __device__ inline size_t decode_fft_smem_floats(int rows, int hop, int 
 // read, as the product basis does not read them).  The frames are added into
 // the block's output chunks in class order (f + overlap - 1) mod overlap and
 // the chunks stored.  wsyn = the synthesis window / gain / n_fft.
-template <bool kComplex>
+// kSmooth: the mixed-radix instance (fft_covers_smooth(n_fft): frames_irfft's
+// mixed-radix stages, twiddles j < fft_smooth_table(n), wsyn with the 1 / n
+// fold rounded once from float64; plan stream_step._decode_plan).
+template <bool kComplex, bool kSmooth = false>
 __global__ void __launch_bounds__(kThreads, 2) session_decode_fft_kernel(SessionArgs a) {
     extern __shared__ __align__(16) float smem[];
     const int m = a.overlap - 1, F = a.F, hop = a.hop, ov = a.overlap, T = a.T;
@@ -532,8 +540,8 @@ __global__ void __launch_bounds__(kThreads, 2) session_decode_fft_kernel(Session
     const int j_end = min(T, j0 + a.rows);
     const int n_frames = min(a.rows + 2 * ov, T + m - j0);
     float* out = smem;  // [rows][hop]
-    const FftSmem fs = carve_fft(out + (size_t)a.rows * hop, n);
-    fft_stage(a.wsyn, a.fft_tw, fs, n);  // wsyn in the window's slot
+    const FftSmem fs = carve_fft<kSmooth>(out + (size_t)a.rows * hop, n);
+    fft_stage<kSmooth>(a.wsyn, a.fft_tw, fs, n);  // wsyn in the window's slot
     for (int i = threadIdx.x; i < a.rows * hop; i += kThreads) out[i] = 0.0f;
     const int f0 = j0 - m;
     const float* mag = a.mag + (size_t)b * T * F;
@@ -541,7 +549,7 @@ __global__ void __launch_bounds__(kThreads, 2) session_decode_fft_kernel(Session
     const float* ang = kComplex ? nullptr : a.angles + (size_t)b * a.Ta * F;
     const int n_out = (j_end - j0) * hop;
     // frames_irfft starts with a barrier and ends with one
-    frames_irfft(
+    frames_irfft<kSmooth>(
         n_frames, ov, n, fs, fs.win, a.teams,
         [&](int r, int k, float& re, float& im) {
             const int f = f0 + r;
@@ -889,20 +897,24 @@ int att_session_roundtrip(const float* x, const float* angles, const float* wc, 
 // Kernels P and S (angles == nullptr), and O's projection synthesis.  mag
 // (B, T, F), or for S the complex spectrum as (B, T, F, 2) floats; angles (B,
 // Ta, F) with Ta >= T; out (B, T * hop), every sample written.  teams > 0
-// selects the FFT route: n_fft = overlap hop a power of two from 64 to 4096,
-// F = n_fft / 2 + 1, wsyn (n_fft,) the synthesis window / gain / n_fft, fft_tw
-// (2, n_fft) = (cos, -sin)(2 pi j / n_fft), 1 <= teams <= 4096 / n_fft, rows a
-// multiple of 2 overlap; syn and Kp are not read.  teams == 0 selects the
-// product route: syn as for L, rows <= 40 output chunks per block; wsyn and
-// fft_tw are not read.  Returns a cudaError_t.
+// selects the FFT route: n_fft = overlap hop a power of two from 64 to 4096
+// (1 <= teams <= 4096 / n_fft), or the smooth route where
+// fft_covers_smooth(n_fft) (1 <= teams <= fft_smooth_max_teams), F = n_fft /
+// 2 + 1, wsyn (n_fft,) the synthesis window / gain / n_fft
+// (frames_fft.irfft_window), fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft),
+// rows a multiple of 2 overlap; syn and Kp are not read.  teams == 0 selects
+// the product route: syn as for L, rows <= 40 output chunks per block; wsyn
+// and fft_tw are not read.  Returns a cudaError_t.
 int att_session_decode(const float* mag, const float* angles, const float* syn, const float* wsyn,
                        const float* fft_tw, float* out, long long B, int T, int Ta, int F, int hop,
                        int overlap, int Kp, int rows, int teams, void* stream) {
     using namespace att;
     const int n_fft = overlap * hop;
     const bool fft = teams > 0;
+    const bool smooth = fft && !fft_covers(n_fft);
+    const int max_teams = smooth ? fft_smooth_max_teams(n_fft) : fft_max_teams(n_fft);
     if (!session_args_ok(B, T, F, hop, overlap) || rows < 1 || (angles != nullptr && Ta < T) ||
-        (fft && (!fft_covers(n_fft) || F != n_fft / 2 + 1 || teams > fft_max_teams(n_fft) ||
+        (fft && ((smooth && !fft_covers_smooth(n_fft)) || F != n_fft / 2 + 1 || teams > max_teams ||
                  rows % (2 * overlap) != 0)) ||
         (!fft && (Kp % kSynKC != 0 || Kp < 2 * F || rows > 8 * 5))) {
         return (int)cudaErrorInvalidValue;
@@ -918,13 +930,17 @@ int att_session_decode(const float* mag, const float* angles, const float* syn, 
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
     if (fft) {
-#define ATT_LAUNCH_DECF(CPLX)                                                      \
+#define ATT_LAUNCH_DECF(CPLX, SMOOTH)                                              \
     do {                                                                           \
-        err = session_allow_smem(session_decode_fft_kernel<CPLX>, smem);           \
+        err = session_allow_smem(session_decode_fft_kernel<CPLX, SMOOTH>, smem);   \
         if (err != cudaSuccess) return (int)err;                                   \
-        session_decode_fft_kernel<CPLX><<<grid, kThreads, smem, s>>>(a);           \
+        session_decode_fft_kernel<CPLX, SMOOTH><<<grid, kThreads, smem, s>>>(a);   \
     } while (0)
-        if (angles == nullptr) ATT_LAUNCH_DECF(true); else ATT_LAUNCH_DECF(false);
+        if (smooth) {
+            if (angles == nullptr) ATT_LAUNCH_DECF(true, true); else ATT_LAUNCH_DECF(false, true);
+        } else {
+            if (angles == nullptr) ATT_LAUNCH_DECF(true, false); else ATT_LAUNCH_DECF(false, false);
+        }
 #undef ATT_LAUNCH_DECF
         return (int)cudaGetLastError();
     }

@@ -12,11 +12,12 @@ session encode (R, the magnitude encode of N) and the full-K melspec and
 representation front ends (E, F, G, H) run the forward; K's synthesis the
 inverse; the full-K Griffin-Lim step (J) both; the streaming roundtrips (L,
 M) both in one team (``frames_roundtrip``), wherever :func:`fft_covers`
-takes ``n_fft``.  R, N's encode, L and M also take the mixed-radix schedule
-wherever :func:`fft_covers_smooth` takes ``n_fft`` (even, ``2^a 3^b 5^c``,
-64 to 4096, not a power of two: 1200, 960, 768, 400, 1920, ...); every other
-``n_fft`` keeps the window-folded products of ``dft_common.cuh`` and
-``synth_ola.cuh``.  The rules read ``n_fft`` alone.
+takes ``n_fft``.  R, N's encode, L, M and the streaming decodes (P, S, O's
+projection synthesis) also take the mixed-radix schedule wherever
+:func:`fft_covers_smooth` takes ``n_fft`` (even, ``2^a 3^b 5^c``, 64 to 4096,
+not a power of two: 1200, 960, 768, 400, 1920, ...); every other ``n_fft``
+keeps the window-folded products of ``dft_common.cuh`` and ``synth_ola.cuh``.
+The rules read ``n_fft`` alone.
 
 The schedule, which :func:`frames_rfft_reference` and
 :func:`frames_irfft_reference` repeat step for step:
@@ -75,7 +76,8 @@ FFT_MIN, FFT_MAX = 64, 4096       # the sizes frames_rfft takes (powers of two)
 THREADS = 256                     # threads of a block (dft_common.cuh kThreads)
 VALUES = 16                       # complex values a thread holds in a pass
 MAX_SMEM = 232448                 # bytes of shared memory a block may use on sm_90
-TWO_BLOCKS_SMEM = 233472 // 2 - 1024   # a block's share when two run on one SM (1 KB reserved each)
+SM_SMEM = 233472                  # bytes of shared memory an SM holds for its blocks (1 KB reserved each)
+TWO_BLOCKS_SMEM = SM_SMEM // 2 - 1024   # a block's share when two run on one SM
 
 
 def fft_covers(n_fft: int) -> bool:
@@ -89,8 +91,9 @@ def fft_covers(n_fft: int) -> bool:
 def fft_covers_smooth(n_fft: int) -> bool:
     """Whether the mixed-radix route takes ``n_fft``: even, ``2^a 3^b 5^c``
     (``a >= 1``), from 64 to 4096, and not a power of two (those keep
-    :func:`fft_covers`'s schedule).  Only R, the magnitude encode, L and M
-    take it; every other kernel runs its product route there."""
+    :func:`fft_covers`'s schedule).  Only R, the magnitude encode, L, M and
+    the streaming decodes (P, S, O's projection synthesis) take it; every
+    other kernel runs its product route there."""
     n = int(n_fft)
     if not FFT_MIN <= n <= FFT_MAX or n % 2 or n & (n - 1) == 0:
         return False
@@ -249,16 +252,20 @@ def class_plan(n_fft: int, hop: int, smem_bytes: Callable[[int, int], int],
 
 
 def class_plan_smooth(n_fft: int, hop: int, smem_bytes: Callable[[int, int], int],
-                      widest: int = 64) -> Optional[Tuple[int, int]]:
+                      widest: int = 64, blocks: int = 2) -> Optional[Tuple[int, int]]:
     """:func:`class_plan` of the mixed-radix route: ``(rows, teams)`` over
     every power of two of teams up to :func:`fft_smooth_max_teams` and every
     multiple of ``2 overlap`` up to ``widest``, the most chunks per round of
-    pair FFTs times the blocks an SM holds (2 where ``smem_bytes(rows,
-    teams)`` leaves room for a second, else 1), ties to the taller block.  A
-    sweep of every plan at 1200/300, 960/240, 768/192, 400/100 and 1920/480
-    (on an H100) found the largest rows of the most teams a bad rule
-    there: fewer teams leave room for taller blocks (24 chunks of 2 FFTs at
-    960/240 0.68 ms, 8 of 4 FFTs 1.03)."""
+    pair FFTs times the blocks an SM holds (as many as its shared memory
+    takes at ``smem_bytes(rows, teams)`` a block, 1 KB reserved each, at most
+    ``blocks``: what the kernel's registers allow), ties to the taller block.
+    A sweep of every plan at 1200/300, 960/240, 768/192, 400/100 and 1920/480
+    (on an H100) found the largest rows of the most teams a bad rule there:
+    fewer teams leave room for taller blocks (L: 24 chunks of 2 FFTs at
+    960/240 0.68 ms, 8 of 4 FFTs 1.03); the decode's instance (64 registers,
+    so 4 blocks an SM) took its fastest plan at all five with ``blocks=4``,
+    up to 1.2x slower ones with 2 (400/100: 56 chunks of 8 FFTs 0.45 ms, 48
+    chunks, three blocks an SM, 0.37)."""
     ov = n_fft // hop
     best, score = None, 0.0
     teams = 1
@@ -268,7 +275,7 @@ def class_plan_smooth(n_fft: int, hop: int, smem_bytes: Callable[[int, int], int
             if b > MAX_SMEM:
                 break
             rounds = ov * -(-(rows // (2 * ov) + 1) // teams)
-            s = (2 if b <= TWO_BLOCKS_SMEM else 1) * rows / rounds
+            s = min(blocks, SM_SMEM // (b + 1024)) * rows / rounds
             if s >= score:
                 best, score = (rows, teams), s
         teams *= 2

@@ -24,11 +24,11 @@ to three kernel launches instead of a Python loop of small ops per chunk
   where ``fft_covers_smooth(n_fft)``, the products elsewhere;
 * ``make_fused_random_invert`` (P): the ``random`` decode, magnitudes
   ``(..., T, F)`` -> audio ``(..., T * hop)``.  P, S and O's projection
-  synthesis take the FFT route where ``fft_covers(n_fft)`` (never the smooth
-  route)
+  synthesis take the FFT route where ``fft_covers(n_fft)``
   (``csrc/stream_step.cu:session_decode_fft_kernel``: ``frames_irfft`` of
   the input spectra, the roundtrips' synthesis; :func:`_decode_plan`), the
-  synthesis product elsewhere;
+  smooth route (its mixed-radix instance) where ``fft_covers_smooth(n_fft)``,
+  the synthesis product elsewhere;
 * ``make_fused_pghi_roundtrip`` (N): the phaseless RT-PGHI roundtrip, three
   launches: the magnitude encode (R's analysis with an ``|X|`` epilogue), the
   recurrence (``csrc/pghi.cu:rt_pghi_phases_kernel``, one block per session:
@@ -75,7 +75,7 @@ launches its kernel or raises; on a CPU tensor it runs the plain PyTorch
 version beside it (``session_*_reference``: materialized frames; on the FFT
 route ``frames_fft.frames_rfft_reference`` and, for L and M,
 ``frames_irfft_reference`` and ``overlap_add_classes`` in the kernels'
-schedule, with ``smooth=True`` on the smooth route; elsewhere ``torch.matmul`` against the windowed bases, in float32,
+schedule (the decodes too), with ``smooth=True`` on the smooth route; elsewhere ``torch.matmul`` against the windowed bases, in float32,
 and ``ops/framing.overlap_add``), which is also what the kernels are held
 against on the card.
 
@@ -207,17 +207,18 @@ launches: Dict[str, int] = {
     "rt_pghi_seeded": 0, "gl_project_synthesis": 0, "gl_project_analysis": 0, "gl_polish": 0,
 }
 #: the encode's, the roundtrips' and the decodes' launches by route,
-#: ``"<kernel>:fft"`` / ``"<kernel>:smooth"`` (the encodes and the roundtrips
-#: only) / ``"<kernel>:product"`` (each also counts in ``launches``)
+#: ``"<kernel>:fft"`` / ``"<kernel>:smooth"`` / ``"<kernel>:product"`` (each
+#: also counts in ``launches``; the polish has the FFT route only)
 routes: Dict[str, int] = {
     "session_encode:fft": 0, "session_encode:smooth": 0, "session_encode:product": 0,
     "session_magnitude:fft": 0, "session_magnitude:smooth": 0, "session_magnitude:product": 0,
     "session_roundtrip:fft": 0, "session_roundtrip:smooth": 0, "session_roundtrip:product": 0,
     "session_random_roundtrip:fft": 0, "session_random_roundtrip:smooth": 0,
     "session_random_roundtrip:product": 0,
-    "session_random_decode:fft": 0, "session_random_decode:product": 0,
-    "session_complex_decode:fft": 0, "session_complex_decode:product": 0,
-    "gl_project_synthesis:fft": 0, "gl_project_synthesis:product": 0, "gl_polish:fft": 0,
+    "session_random_decode:fft": 0, "session_random_decode:smooth": 0, "session_random_decode:product": 0,
+    "session_complex_decode:fft": 0, "session_complex_decode:smooth": 0, "session_complex_decode:product": 0,
+    "gl_project_synthesis:fft": 0, "gl_project_synthesis:smooth": 0, "gl_project_synthesis:product": 0,
+    "gl_polish:fft": 0,
 }
 
 
@@ -365,10 +366,11 @@ def _encode_smem_bytes(rows: int, hop: int, kn: int) -> int:
 
 
 def session_route(n_fft: int) -> str:
-    """The route of R, the magnitude encode, L and M at ``n_fft``: ``"fft"``
-    where ``fft_covers`` (a power of two from 64 to 4096), ``"smooth"`` where
-    ``fft_covers_smooth`` (the mixed-radix instance), else ``"product"``.  The
-    decodes (P, S, O's synthesis) and the polish read ``fft_covers`` alone."""
+    """The route of R, the magnitude encode, L, M and the decodes (P, S,
+    O's projection synthesis) at ``n_fft``: ``"fft"`` where ``fft_covers`` (a
+    power of two from 64 to 4096), ``"smooth"`` where ``fft_covers_smooth``
+    (the mixed-radix instance), else ``"product"``.  The polish reads
+    ``fft_covers`` alone."""
     if fft_covers(n_fft):
         return "fft"
     return "smooth" if fft_covers_smooth(n_fft) else "product"
@@ -405,10 +407,10 @@ def _decode_smem_bytes(rows: int, overlap: int, kp: int) -> int:
 
 
 def _decode_fft_smem_bytes(rows: int, hop: int, n_fft: int, teams: int) -> int:
-    """Shared memory of one decode block on the FFT route: the ``rows`` output
-    chunks and ``frames_irfft``'s area (the synthesis window in the window's
-    place)."""
-    return 4 * (rows * hop + fft_smem_floats(n_fft, teams))
+    """Shared memory of one decode block on the FFT or smooth route: the
+    ``rows`` output chunks and ``frames_irfft``'s area on the route ``n_fft``
+    takes (the synthesis window in the window's place)."""
+    return 4 * (rows * hop + _fft_area_floats(n_fft, teams))
 
 
 def _best_rows(candidates, overlap: int) -> Optional[int]:
@@ -498,24 +500,34 @@ def _decode_plan(n_fft: int, hop: int, rows: Optional[int] = None) -> Optional[T
     synthesis), or None when no block fits.  The FFT route
     (``fft_covers(n_fft)``): rows a multiple of ``2 overlap``,
     ``frames_fft.class_plan``'s (56 chunks, 4 FFTs at 1024/256, two blocks an
-    SM), or for narrow blocks (``rows`` given: O's projection, so that one
+    SM); the smooth route (``fft_covers_smooth(n_fft)``)
+    ``frames_fft.class_plan_smooth``'s with up to four blocks an SM (its
+    instance takes 64 registers: 40 chunks of 2 FFTs at 1200/300, 24 of 4 at
+    960/240 and 768/192, the fastest of a sweep of every plan on an H100);
+    for narrow blocks on either (``rows`` given: O's projection, so that one
     session's grid spreads over several SMs) the smallest multiple of ``2
-    overlap`` at least ``rows`` (8 chunks at 1024/256), with as many FFTs
-    side by side as fit; the product route: ``teams = 0`` and
+    overlap`` at least ``rows`` (8 chunks at 1024/256 and 1200/300), with as
+    many FFTs side by side as fit; the product route: ``teams = 0`` and
     :func:`_pick_rows`'s height (at most ``rows``)."""
-    if not fft_covers(n_fft):
+    route = session_route(n_fft)
+    if route == "product":
         fit = _pick_rows("decode", n_fft, hop)
         if fit is None:
             return None
         return (fit if rows is None else min(int(rows), fit)), 0
     overlap = n_fft // hop
+
+    def smem(r, teams):
+        return _decode_fft_smem_bytes(r, hop, n_fft, teams)
+
     if rows is None:
-        return class_plan(n_fft, hop, lambda r, teams: _decode_fft_smem_bytes(r, hop, n_fft, teams),
-                          widest=max(64, 2 * overlap))
+        if route == "fft":
+            return class_plan(n_fft, hop, smem, widest=max(64, 2 * overlap))
+        return class_plan_smooth(n_fft, hop, smem, widest=max(64, 2 * overlap), blocks=4)
     r = -(-int(rows) // (2 * overlap)) * 2 * overlap
-    teams = fft_max_teams(n_fft)
+    teams = fft_max_teams(n_fft) if route == "fft" else fft_smooth_max_teams(n_fft)
     while teams >= 1:
-        if _decode_fft_smem_bytes(r, hop, n_fft, teams) <= MAX_SMEM:
+        if smem(r, teams) <= MAX_SMEM:
             return r, teams
         teams //= 2
     return None
@@ -703,12 +715,14 @@ def session_encode_reference(x2d, window, n_fft: int, hop: int, n_frames: int):
 
 def _decode_operands(inv_window: torch.Tensor, gain: float, n_fft: int, hop: int):
     """What the decode reads besides the spectra, ``(syn, wsyn, twiddles)``:
-    on the FFT route (``fft_covers(n_fft)``) the synthesis window over the
-    gain and ``n_fft`` (``frames_fft.irfft_window``) and the twiddle table, on
-    the product route the basis of :func:`_syn_basis`."""
-    if fft_covers(n_fft):
+    on the FFT and smooth routes the synthesis window over the gain and
+    ``n_fft`` (``frames_fft.irfft_window``, the smooth route's fold rounded
+    once) and the twiddle table, on the product route the basis of
+    :func:`_syn_basis`."""
+    route = session_route(n_fft)
+    if route != "product":
         (tw,) = _tables(fft_twiddles, inv_window.device, n_fft)
-        wsyn = irfft_window(inv_window.to(torch.float32) / gain, n_fft)
+        wsyn = irfft_window(inv_window.to(torch.float32) / gain, n_fft, route == "smooth")
         return None, wsyn.contiguous(), tw
     return _syn_basis(inv_window, gain, n_fft, hop), None, None
 
@@ -727,8 +741,8 @@ def _synthesize_fft(re, im, inv_window, gain: float, n_fft: int, hop: int, T: in
     counted from the first, through ``frames_irfft_reference`` under the
     synthesis window over the gain; the samples of the frames before 0
     dropped, the overlap-add in class order ``(f + overlap - 1) mod
-    overlap``, cut at ``T * hop``.  ``smooth``: the roundtrips' smooth route
-    (the mixed-radix schedule)."""
+    overlap``, cut at ``T * hop``.  ``smooth``: the smooth route (the
+    mixed-radix schedule)."""
     m = n_fft // hop - 1
     lead = re.new_zeros(re.shape[:-2] + (m, re.shape[-1]))
     wsyn = irfft_window(inv_window.to(device=re.device, dtype=torch.float32) / gain, n_fft, smooth)
@@ -738,10 +752,13 @@ def _synthesize_fft(re, im, inv_window, gain: float, n_fft: int, hop: int, T: in
 
 
 def _synthesis_reference(re, im, inv_window, gain: float, n_fft: int, hop: int, T: int) -> torch.Tensor:
-    """The plain synthesis of the route ``n_fft`` picks: :func:`_synthesize_fft`
-    where ``fft_covers(n_fft)``, else :func:`_synthesize`."""
-    synth = _synthesize_fft if fft_covers(n_fft) else _synthesize
-    return synth(re, im, inv_window, gain, n_fft, hop, T)
+    """The plain synthesis of the route ``n_fft`` picks (:func:`session_route`):
+    :func:`_synthesize_fft` on the FFT and smooth routes (``smooth=True`` on
+    the latter), else :func:`_synthesize`."""
+    route = session_route(n_fft)
+    if route == "product":
+        return _synthesize(re, im, inv_window, gain, n_fft, hop, T)
+    return _synthesize_fft(re, im, inv_window, gain, n_fft, hop, T, route == "smooth")
 
 
 def session_roundtrip_reference(x2d, window, inv_window, gain: float, n_fft: int, hop: int,
@@ -995,14 +1012,14 @@ def _launch_roundtrip(x2d, angles, ops, n_fft, hop, T) -> torch.Tensor:
 def _launch_decode(mag, angles, ops, n_fft, hop, rows=None, name=None) -> torch.Tensor:
     """P: ``mag (B, T, F)`` with ``angles (B, >= T, F)``; S (``angles=None``):
     ``mag`` is the spectrum as ``(B, T, F, 2)`` floats.  ``ops``:
-    :func:`_decode_operands`, whose route ``fft_covers(n_fft)`` picks.
+    :func:`_decode_operands`, whose route :func:`session_route` picks.
     ``rows`` output chunks per block for narrow blocks (default: the plan's),
     ``name`` the counter."""
     _require("decode", n_fft, hop)
     rows, teams = _decode_plan(n_fft, hop, None if rows is None else int(rows))
     syn, wsyn, tw = ops
     if teams and (wsyn is None or tw is None):
-        raise ValueError("the decode's FFT route takes the synthesis window and the twiddle table")
+        raise ValueError("the decode's FFT and smooth routes take the synthesis window and the twiddle table")
     if not teams and syn is None:
         raise ValueError("the decode's product route takes the synthesis basis")
     B, T, F = mag.shape[:3]
@@ -1018,7 +1035,7 @@ def _launch_decode(mag, angles, ops, n_fft, hop, rows=None, name=None) -> torch.
     name = name or ("session_complex_decode" if angles is None else "session_random_decode")
     _build.check(code, name)
     launches[name] += 1
-    routes[name + (":fft" if teams else ":product")] += 1
+    routes[name + ":" + session_route(n_fft)] += 1
     return out
 
 

@@ -3,6 +3,7 @@
     python -m acids_transforms_tpu_torch.tools.sweep_regions [--batch 128] [--seconds 4.0]
         [--sessions 1,8,64,256] [--session-seconds 2.0] [--runs 5] [--seed 0]
         [--out dispatch_regions.json] [--raw raw.json] [--parts fuse,fit,stream,memory]
+        [--update dispatch_regions.json]
 
 The port's twin of the JAX package's ``tools/sweep_region_check.py``.  Every
 value of ``acids_transforms_tpu_torch/dispatch_regions.json`` comes from a run
@@ -24,30 +25,37 @@ measurement).  The parts:
 * ``fit``: ``fuse_fit(backend="kernel")`` against ``chain.fit`` for the
   DGT's magnitude and PolarIF chains at the same n_fft (64 to 4096).
 * ``stream``: each session route (``backend="fused"``) against the generic
-  chunk scan on ``--sessions`` mono sessions of ``--session-seconds`` s,
-  chunks of 4096, ``OverlapAdd(1024, 256) + RealtimeSTFT(1024, 256)``: the
-  encode, the complex roundtrip and decode, and the roundtrip and decode of
-  ``random``, ``pghi``, ``pghi_gl`` and ``sinebank``; the host's clock to
-  the card's end, median of 3 runs (the generic scans are host loops).  A
-  generic scan that took over 15 s at one batch is not run at the next, and
-  the skip is recorded.
+  chunk scan on ``--sessions`` mono sessions of ``--session-seconds`` s of
+  ``OverlapAdd + RealtimeSTFT`` at each of :data:`STREAM_SHAPES`: 1024/256
+  (chunks of 4096, the FFT route) and 1200/300 (chunks of 4800, 16 frames
+  as at 1024; the smooth route); the encode, the complex roundtrip and
+  decode, and the roundtrip and decode of ``random``, ``pghi``, ``pghi_gl``
+  and ``sinebank``; the host's clock to the card's end, median of 3 runs
+  (the generic scans are host loops).  A generic scan that took over 15 s
+  at one batch is not run at the next of that shape, and the skip is
+  recorded.
 * ``memory``: each phaseless route's and the sinebank closed form's peak
   allocation (``torch.cuda.max_memory_allocated`` over the call, less what
   was allocated before) per byte of its session buffer, at the two largest
-  batches.
+  batches, at 1024/256.
 
 The derived table: a shape region per pattern (the measured power-of-two
 n_fft around 1024 where the kernel wins, and ``fft_route_only`` where it
 loses at 768, the one n_fft no power of two); the full-K fit's largest n_fft
 up to which the kernel wins at every measured size; per session mode the
 largest measured batch up
-to which the route wins at every measured batch (None where it wins at
-all); the angle and frame buffer caps at which a session peaks at half the
-card's memory.  The table has no key for an overlap or for the fit's
-smallest n_fft: the derivation raises if the kernel lost at an overlap other
-than 4 or at the fit's smallest sizes (the card would then need one; the
-raw measurements are written first).  It needs a CUDA device: there is no
-CPU mode.
+to which the route wins at every measured batch of every measured shape
+(None where it wins at all); the angle and frame buffer caps at which a
+session peaks at half the card's memory.  The table has no key for an
+overlap or for the fit's smallest n_fft: the derivation raises if the
+kernel lost at an overlap other than 4 or at the fit's smallest sizes (the
+card would then need one; the raw measurements are written first).  With
+``--update TABLE`` the sections of the parts run replace those of an
+existing table (``fuse``: ``fuse_forward``; ``fit``: ``fuse_fit``;
+``stream`` and ``memory`` together: ``streaming``) and the others stay as
+they were measured: after a change to a session kernel's route,
+``--parts stream,memory --update`` re-measures the sessions alone.  It
+needs a CUDA device: there is no CPU mode.
 """
 from __future__ import annotations
 
@@ -74,7 +82,8 @@ POW2 = {64: "64/32", 128: "128/32", 256: "256/64", 512: "512/128", 1024: "1024/2
 KINDS = ["melspec_taps", "melspec_fullk", "repr_if_taps", "repr_if_fullk", "repr_phase_taps",
          "repr_phase_fullk", "mfcc"]
 FIT_KINDS = ["fit_melspec_fullk", "fit_repr_if_fullk"]
-N_FFT_S, HOP_S, CHUNK = 1024, 256, 4096
+#: the session sweep's shapes, (n_fft, hop, chunk): 16 frames a chunk each
+STREAM_SHAPES = [(1024, 256, 4096), (1200, 300, 4800)]
 #: the share of the card's memory a session may peak at under ``auto``
 CARD_SHARE = 0.5
 #: a generic scan slower than this at one batch is not run at the next
@@ -183,50 +192,59 @@ def sweep_fit(att, T, audio, runs: int, log) -> Dict[str, Dict[str, dict]]:
     return out
 
 
-def session_calls(streaming, T, dev, B: int, length: int, seed: int):
+def session_calls(streaming, T, dev, B: int, length: int, seed: int, shape=STREAM_SHAPES[0]):
     """Per session mode the route and the generic scan of each call, and
-    the session's buffer sizes."""
+    the session's buffer sizes, at ``shape`` ``(n_fft, hop, chunk)``."""
+    n_fft, hop, chunk = shape
     gen = torch.Generator(device=dev).manual_seed(seed + 17)
     x = make_audio(B, length, gen, channels=1)[:, 0].contiguous()
-    T_c = CHUNK // HOP_S
+    T_c = chunk // hop
 
     def chain(mode=None):
-        return T.OverlapAdd(N_FFT_S, HOP_S, device=dev) + T.RealtimeSTFT(
-            n_fft=N_FFT_S, hop_length=HOP_S, device=dev, **({"inversion_mode": mode} if mode else {}))
+        return T.OverlapAdd(n_fft, hop, device=dev) + T.RealtimeSTFT(
+            n_fft=n_fft, hop_length=hop, device=dev, **({"inversion_mode": mode} if mode else {}))
 
     c0 = chain()
-    spec, _ = streaming.scan_forward(c0, x, CHUNK, backend="generic")
+    spec, _ = streaming.scan_forward(c0, x, chunk, backend="generic")
     mags = spec.abs()
 
     def g():
         return torch.Generator(device=dev).manual_seed(seed + 5)
 
     calls = {
-        "encode": [(lambda b: streaming.scan_forward(c0, x, CHUNK, backend=b))],
-        "complex": [(lambda b: streaming.scan_roundtrip(c0, x, CHUNK, backend=b))],
+        "encode": [(lambda b: streaming.scan_forward(c0, x, chunk, backend=b))],
+        "complex": [(lambda b: streaming.scan_roundtrip(c0, x, chunk, backend=b))],
         "complex_decode": [(lambda b: streaming.scan_invert(c0, spec, T_c, backend=b))],
     }
     for mode in ("random", "pghi", "pghi_gl", "sinebank"):
         cm = chain(mode)
         calls[mode] = [
-            (lambda b, cm=cm, mode=mode: streaming.scan_roundtrip(cm, x, CHUNK, mode, generator=g(), backend=b)),
+            (lambda b, cm=cm, mode=mode: streaming.scan_roundtrip(cm, x, chunk, mode, generator=g(), backend=b)),
             (lambda b, cm=cm, mode=mode: streaming.scan_invert(cm, mags, T_c, mode, generator=g(), backend=b)),
         ]
     n_frames = mags.shape[-2]
-    sizes = {"angle_bytes": B * n_frames * mags.shape[-1] * 4, "frame_bytes": B * n_frames * N_FFT_S * 4}
+    sizes = {"angle_bytes": B * n_frames * mags.shape[-1] * 4, "frame_bytes": B * n_frames * n_fft * 4}
     return calls, sizes
 
 
 def sweep_stream(streaming, T, dev, batches: List[int], length: int, seed: int, log) -> dict:
+    """Per shape ``"n_fft/hop"`` of :data:`STREAM_SHAPES`, per mode and
+    batch, the route's and the generic scan's times."""
+    return {"%d/%d" % shape[:2]: _sweep_stream_shape(streaming, T, dev, batches, length, seed, log, shape)
+            for shape in STREAM_SHAPES}
+
+
+def _sweep_stream_shape(streaming, T, dev, batches, length, seed, log, shape) -> dict:
     out: Dict[str, Dict[str, dict]] = {}
     skip: Dict[str, bool] = {}
+    where = "%d/%d" % shape[:2]
     for B in batches:
-        calls, _ = session_calls(streaming, T, dev, B, length, seed)
+        calls, _ = session_calls(streaming, T, dev, B, length, seed, shape)
         for mode, fns in calls.items():
             row = out.setdefault(mode, {})
             if skip.get(mode):
                 row[str(B)] = {"skipped": "the generic scan took over %.0f s at the batch before" % GENERIC_LIMIT_S}
-                log("  stream %-14s B=%-4d skipped" % (mode, B))
+                log("  stream %-9s %-14s B=%-4d skipped" % (where, mode, B))
                 continue
             r_ms, g_ms = [], []
             for fn in fns:
@@ -235,8 +253,8 @@ def sweep_stream(streaming, T, dev, batches: List[int], length: int, seed: int, 
             if max(g_ms) > 1e3 * GENERIC_LIMIT_S:
                 skip[mode] = True
             row[str(B)] = {"route_ms": r_ms, "generic_ms": g_ms, "ratio": [r / g for r, g in zip(r_ms, g_ms)]}
-            log("  stream %-14s B=%-4d route %s ms  generic %s ms  ratio %s" % (
-                mode, B, " / ".join("%.2f" % v for v in r_ms), " / ".join("%.1f" % v for v in g_ms),
+            log("  stream %-9s %-14s B=%-4d route %s ms  generic %s ms  ratio %s" % (
+                where, mode, B, " / ".join("%.2f" % v for v in r_ms), " / ".join("%.1f" % v for v in g_ms),
                 " / ".join("%.3f" % (r / g) for r, g in zip(r_ms, g_ms))))
         del calls
         torch.cuda.empty_cache()
@@ -300,8 +318,22 @@ def shape_region(rows: Dict[str, dict], card: str, what: str) -> Optional[dict]:
     }
 
 
+_DOC = [
+    "The port's auto-dispatch regions (regions.py), every value measured on the card named in",
+    "its _why by acids_transforms_tpu_torch/tools/sweep_regions.py; none is the JAX package's.",
+]
+
+
 def derive_table(raw: dict, card: str, total_mem: int) -> dict:
-    fuse, fit, stream, mem = raw["fuse"], raw["fit"], raw["stream"], raw["memory"]
+    return {
+        "_doc": list(_DOC),
+        "fuse_forward": fuse_section(raw["fuse"], card),
+        "fuse_fit": fit_section(raw["fit"], card),
+        "streaming": streaming_section(raw["stream"], raw["memory"], card, total_mem),
+    }
+
+
+def fuse_section(fuse: dict, card: str) -> dict:
     what = {
         "melspec_taps": "Mono + STFT(hann) + Magnitude(unipolar, log1p, mel)",
         "melspec_fullk": "Mono + DGT + Magnitude(unipolar, log1p)",
@@ -310,14 +342,17 @@ def derive_table(raw: dict, card: str, total_mem: int) -> dict:
         "repr_phase_fullk": "Mono + DGT + Polar (Cartesian shares it)", "mfcc": "Mono + MFCC",
     }
     regions = {k: shape_region(fuse[k], card, what[k]) for k in KINDS}
-    ff = {
+    return {
         "melspec_taps": regions["melspec_taps"],
         "melspec_fullk": regions["melspec_fullk"],
         "repr_if": {"taps": regions["repr_if_taps"], "fullk": regions["repr_if_fullk"]},
         "repr_phase_imag": {"taps": regions["repr_phase_taps"], "fullk": regions["repr_phase_fullk"]},
         "mfcc": regions["mfcc"],
     }
-    # the full-K fit: the largest n_fft up to which both fits win
+
+
+def fit_section(fit: dict, card: str) -> dict:
+    """The full-K fit: the largest n_fft up to which both fits win."""
     pow2 = sorted(POW2)
     both = {n: all(fit[k][POW2[n]]["ratio"] < 1.0 for k in FIT_KINDS) for n in pow2}
     run = _run(both, pow2, 1024)
@@ -326,30 +361,38 @@ def derive_table(raw: dict, card: str, total_mem: int) -> dict:
     fit_ratios = "; ".join("%s: %s" % (k, ", ".join("%s %.2fx" % (s, v["ratio"]) for s, v in fit[k].items()))
                            for k in FIT_KINDS)
     fit_768 = all(fit[k]["768/192"]["ratio"] < 1.0 for k in FIT_KINDS)
-    fuse_fit = {
+    return {
         "_why": "%s: fuse_fit(backend='kernel') / chain.fit time per call of the DGT chains (the card's, "
                 "median of the runs) at %s; the largest n_fft up to which both win" % (card, fit_ratios),
         "fullk_n_fft_max": run[-1] if run else 0,
         "fullk_fft_route_only": not fit_768,
     }
-    # batch caps
+
+
+def _batch_cap(rows: dict) -> Optional[int]:
+    """The largest measured batch up to which the route wins at every
+    measured batch of one shape; None where it wins at all."""
+    measured = sorted(int(b) for b, v in rows.items() if "ratio" in v)
+    won = [b for b in measured if max(rows[str(b)]["ratio"]) < 1.0]
+    if won == measured:
+        return None
+    cap = 0
+    for b in measured:
+        if b not in won:
+            break
+        cap = b
+    return cap
+
+
+def streaming_section(stream: dict, mem: dict, card: str, total_mem: int) -> dict:
+    # batch caps: the least of the shapes' (None: the route won everywhere)
     caps, cap_why = {}, []
     for mode in ("complex", "complex_decode", "encode", "pghi", "pghi_gl", "random"):
-        rows = stream[mode]
-        measured = sorted(int(b) for b, v in rows.items() if "ratio" in v)
-        won = [b for b in measured if max(rows[str(b)]["ratio"]) < 1.0]
-        if won == measured:
-            caps[mode] = None
-        else:
-            cap = 0
-            for b in measured:
-                if b not in won:
-                    break
-                cap = b
-            caps[mode] = cap
-        cap_why.append("%s %s" % (mode, ", ".join(
+        per_shape = [_batch_cap(stream[shape][mode]) for shape in stream]
+        caps[mode] = min((c for c in per_shape if c is not None), default=None)
+        cap_why.append("%s %s" % (mode, "; ".join("%s: %s" % (shape, ", ".join(
             "B=%s %s" % (b, "/".join("%.3f" % r for r in v["ratio"]) if "ratio" in v else "not run")
-            for b, v in rows.items())))
+            for b, v in stream[shape][mode].items())) for shape in stream)))
     # memory caps: the buffer at which a session peaks at CARD_SHARE of the card
     ang = max(v["per_buffer_byte"] for m in ("random", "pghi", "pghi_gl") for v in mem[m].values())
     sb = max(v["per_buffer_byte"] for v in mem["sinebank"].values())
@@ -360,7 +403,9 @@ def derive_table(raw: dict, card: str, total_mem: int) -> dict:
 
     mem_txt = "; ".join("%s %s" % (m, ", ".join("%s %.2f" % (k, v["per_buffer_byte"]) for k, v in mem[m].items()))
                         for m in ("random", "pghi", "pghi_gl"))
-    streaming = {
+    shapes = " and ".join("OverlapAdd(%d, %d) + RealtimeSTFT(%d, %d), chunks of %d" % (n, h, n, h, c)
+                          for n, h, c in STREAM_SHAPES if "%d/%d" % (n, h) in stream)
+    return {
         "angle_cap_bytes": cap_of(ang),
         "_angle_why": "%s (%.1f GB): the phaseless sessions' peak allocation per byte of their (B, T, F) "
                       "float32 angle buffer, at most %.2f (%s); capped where a session peaks at %d %% of the "
@@ -373,19 +418,9 @@ def derive_table(raw: dict, card: str, total_mem: int) -> dict:
                                                                        int(100 * CARD_SHARE)),
         "batch_caps": caps,
         "_batch_why": "%s: session route / generic chunk scan time (host clock to the card's end, median of "
-                      "3 runs; roundtrip / decode) on 2 s mono sessions of OverlapAdd(1024, 256) + "
-                      "RealtimeSTFT(1024, 256), chunks of 4096: %s; a cap is the largest batch up to which "
-                      "the route wins at every measured batch, None where it wins at all"
-                      % (card, "; ".join(cap_why)),
-    }
-    return {
-        "_doc": [
-            "The port's auto-dispatch regions (regions.py), every value measured on the card named in",
-            "its _why by acids_transforms_tpu_torch/tools/sweep_regions.py; none is the JAX package's.",
-        ],
-        "fuse_forward": ff,
-        "fuse_fit": fuse_fit,
-        "streaming": streaming,
+                      "3 runs; roundtrip / decode) on 2 s mono sessions of %s: %s; a cap is the largest batch "
+                      "up to which the route wins at every measured batch of every shape, None where it wins "
+                      "at all" % (card, shapes, "; ".join(cap_why)),
     }
 
 
@@ -393,11 +428,13 @@ def _loadable(table: dict) -> dict:
     """A region without a winner at 1024/256 loads as None."""
     ff = table["fuse_forward"]
     for k, v in ff.items():
+        if v is None:
+            continue
         if "_why" in v and "n_fft_min" not in v:
             ff[k] = None
         elif "_why" not in v:
             for s in list(v):
-                if "n_fft_min" not in v[s]:
+                if v[s] is not None and "n_fft_min" not in v[s]:
                     v[s] = None
     return table
 
@@ -413,6 +450,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--parts", default="fuse,fit,stream,memory")
     ap.add_argument("--out", default=None, help="write the derived table here")
     ap.add_argument("--raw", default=None, help="write every measurement here")
+    ap.add_argument("--update", default=None,
+                    help="a table whose sections of the parts run are replaced (the others kept)")
     args = ap.parse_args(argv)
     dev = resolve_device(None)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -449,8 +488,20 @@ def main(argv=None) -> dict:
     if args.raw:
         with open(args.raw, "w") as f:
             json.dump(raw, f, indent=1)
-    if parts >= {"fuse", "fit", "stream", "memory"}:
-        table = _loadable(derive_table(raw, card, total_mem))
+    table = None
+    if args.update:
+        with open(args.update) as f:
+            table = json.load(f)
+        if "fuse" in parts:
+            table["fuse_forward"] = fuse_section(raw["fuse"], card)
+        if "fit" in parts:
+            table["fuse_fit"] = fit_section(raw["fit"], card)
+        if parts >= {"stream", "memory"}:
+            table["streaming"] = streaming_section(raw["stream"], raw["memory"], card, total_mem)
+    elif parts >= {"fuse", "fit", "stream", "memory"}:
+        table = derive_table(raw, card, total_mem)
+    if table is not None:
+        table = _loadable(table)
         text = json.dumps(table, indent=2)
         print(text)
         if args.out:

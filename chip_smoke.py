@@ -64,7 +64,9 @@ projection I) and the streaming decodes (P, S, O's projection synthesis)
 have two routes, picked by n_fft alone: a shared-memory FFT
 (``csrc/fft_smem.cuh``: ``frames_rfft`` for the analyses, ``frames_irfft``
 for the syntheses of C, D, I, J, L, M, K, P, S and O) at a power of two
-from 64 to 4096, the window-folded products elsewhere; so do the log-mel
+from 64 to 4096, the window-folded products elsewhere (R, L, M, P, S and
+O's synthesis take a third route, the mixed-radix FFT, at even 5-smooth
+n_fft); so do the log-mel
 forward and fit (A and B: E's and F's FFT instances under the taps' own
 window, the factored front end elsewhere), the representations' forward
 and fit statistics with taps (G and H: G and H full-K's instances under the
@@ -79,15 +81,15 @@ under hann, hamming and blackman) and against a float64 oracle at 1024, 512,
 2048 and 4096 (C, D, I, K, G, H, P, S and O's synthesis at every power of
 two from 64), the factored route at 768/192 (A, B, G, H), and the product
 route at 768/256 (E, F, J, K, G, H), 768/192
-(C, D, I, K), 8192/2048 (J), 1200/300 (K, P, S, O's synthesis) and
-1344/336 (R, L, M), and the smooth route of R, L and M (the mixed-radix
-FFT) at 1200/300, 960/240, 768/192, 400/100 and 1920/480, bit-identical to
-its plain version; the launch counters' route tally shows every main-path
-launch of the nineteen on the FFT route, and phase 4h drives the smooth,
-product and factored routes through the entry points (1200/300 sessions:
-R, L, M and the magnitude encode on the smooth route, the decodes on the
-product route; 1344/336 sessions: R, L, M and the magnitude encode on the
-product route; an STFT(768, 192) Griffin-Lim invert, STFT(768, 192)
+(C, D, I, K), 8192/2048 (J), 1200/300 (K) and 1344/336 (R, L, M, P, S,
+O's synthesis), and the smooth route of R, L, M, P, S and O's synthesis
+(the mixed-radix FFT) at 1200/300, 960/240, 768/192, 400/100 and 1920/480,
+bit-identical to its plain version; the launch counters' route tally shows
+every main-path launch of the nineteen on the FFT route, and phase 4h
+drives the smooth, product and factored routes through the entry points
+(1200/300 sessions: R, L, M, the magnitude encode and the decodes on the
+smooth route; 1344/336 sessions: R, L, M, the magnitude encode and the
+decodes on the product route; an STFT(768, 192) Griffin-Lim invert, STFT(768, 192)
 log-mel and Polar chains' fit and forward, a DGT(768, 256) chain's fit,
 forward, ``pghi`` and ``pghi_gl``, DGT(768, 256) + PolarIF's fit and
 forward).  Phase
@@ -671,8 +673,8 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         after; the main routes' launches go into the kernels line.  Every
         launch of the encode (R, the magnitude encode), of the roundtrips (L,
         M) and of the decodes must have taken the route ``front``: "fft" at a
-        power-of-two n_fft, "smooth" (R, the magnitude encode, L and M at an
-        even 5-smooth n_fft) or "product"; a dict names the route kernel by
+        power-of-two n_fft, "smooth" (every one of them at an even 5-smooth
+        n_fft) or "product"; a dict names the route kernel by
         kernel ("fft" for those it leaves out).  The smooth and the product
         routes' launches are counted for their rows (4h)."""
         zero_all()
@@ -811,7 +813,7 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     # synthesis), a few 1e-7 of the largest value; 2e-5 leaves a decade.  L
     # and M on the FFT route repeat their plain version's float32 operations
     # in order (bit-identical on the card): 1e-6.  On the smooth route (the
-    # mixed-radix instances, n_fft even and 5-smooth) R, L and M must be
+    # mixed-radix instances, n_fft even and 5-smooth) R, L, M and P must be
     # bit-identical to their plain versions.  L and M also against a
     # float64 oracle (torch.fft of the row-padded frames, |X| with the angles
     # for M, irfft times the synthesis window over the gain, overlap-added):
@@ -860,7 +862,7 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
             msg.append(f"{key} {e:.3e} (tol {tol:.0e}{' bit-identical' if same else ''})")
             require(k_out.shape == p_out.shape and torch.isfinite(k_out).all().item(), f"{key} {label}: bad output")
             require(e <= tol, f"{key} {label} disagrees with plain")
-            require(same or key == "P" or front != "smooth", f"{key} {label}: the smooth route is not bit-identical "
+            require(same or front != "smooth", f"{key} {label}: the smooth route is not bit-identical "
                     "to its plain version")
             if key in ("L", "M"):
                 o = oracle_roundtrip(x, rt, gain, n_fft, hop, Tn, ang if key == "M" else None)
@@ -868,21 +870,19 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
                 msg[-1] += f", oracle {e_o:.3e} (tol 1e-05)"
                 require(e_o <= 1e-5, f"{key} {label} disagrees with the float64 oracle")
                 del o
-            if key == "P" and not fft:
-                key += "_product"
-            elif key != "P" and front != "fft":
+            if front != "fft":
                 key += "_" + front
             errs[key] = max(errs.get(key, 0.0), abs_err(k_out, p_out))
-        log(f"  kernels vs plain, {label} ({front} route of R, L and M; blocks: encode "
+        log(f"  kernels vs plain, {label} ({front} route of R, L, M and P; blocks: encode "
             f"{ss._encode_plan(n_fft, hop)}, roundtrip {ss._roundtrip_plan(n_fft, hop)}, decode "
             f"{ss._decode_plan(n_fft, hop)} as (rows, FFTs)): rel {', '.join(msg)}")
 
     check_kernels(f"main shape {SB} x {SL}", N_FFT, HOP, sx, CH)
     check_kernels("512/128, 3 x 20000 (ragged)", 512, 128, sx[:3, :20000].contiguous(), 2048)
     check_kernels("2048/512, 2 x 30000 (ragged)", 2048, 512, sx[:2, :30000].contiguous(), 4096)
-    # the smooth route (R, L, M) at five shapes users frame audio in at 48
-    # kHz (25, 20, 16, 8.3 and 40 ms); P on its product route there; the
-    # product route of R, L and M at 1344/336 (2^6 3 7)
+    # the smooth route (R, L, M, P) at five shapes users frame audio in at
+    # 48 kHz (25, 20, 16, 8.3 and 40 ms); the product route of R, L, M and P
+    # at 1344/336 (2^6 3 7)
     for n_s, hop_s in ((1200, 300), (960, 240), (768, 192), (400, 100), (1920, 480)):
         check_kernels(f"{n_s}/{hop_s}, 4 x 40000 (ragged)", n_s, hop_s, sx[:4, :40000].contiguous(), 2 * n_s)
     check_kernels("1344/336, 4 x 40000 (ragged)", 1344, 336, sx[:4, :40000].contiguous(), 2688)
@@ -894,13 +894,14 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     # the kernel's float32 operations in order, and sincosf is torch's sin and
     # cos on the card; measured bit-identical) and a float64 oracle (irfft
     # times the synthesis window over the gain, overlap-added: 1e-5); O's
-    # narrow blocks too; the product route at 1200/300 against its plain
-    # version (2e-5: fp32 products in another order than cuBLAS) and the
-    # oracle
+    # narrow blocks too; the smooth route at the five shapes of the encode's
+    # and the roundtrips' smooth route, bit-identical to its plain version;
+    # the product route at 1344/336 against its plain version (2e-5: fp32
+    # products in another order than cuBLAS) and the oracle
     def check_decode_routes(n_fft, hop, B=3, T=45):
         Fb, ov = n_fft // 2 + 1, n_fft // hop
-        fft = ff.fft_covers(n_fft)
-        front = "fft" if fft else "product"
+        front = ss.session_route(n_fft)
+        fft = front != "product"
         g = sgen(n_fft + hop)
         mag = torch.rand((B, T, Fb), generator=g, device=dev)
         ang = 1e3 * torch.rand((B, T, Fb), generator=g, device=dev)
@@ -940,7 +941,9 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
             require(k_out.shape == p_out.shape == (B, T * hop) and torch.isfinite(k_out).all().item(),
                     f"{key} {n_fft}/{hop}: bad output")
             require(e_p <= tol and e_o <= 1e-5, f"{key} {n_fft}/{hop}: out of budget")
-            k = key if fft else key + "_product"
+            require(torch.equal(k_out, p_out) or front != "smooth",
+                    f"{key} {n_fft}/{hop}: the smooth route is not bit-identical to its plain version")
+            k = key if front == "fft" else key + "_" + front
             errs[k] = max(errs.get(k, 0.0), abs_err(k_out, p_out))
         log(f"  decodes {n_fft}/{hop} ({front} route, {B} x {T} frames): " + "; ".join(msg))
 
@@ -948,7 +951,9 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         check_decode_routes(n_fft, n_fft // 4)
     check_decode_routes(1024, 128)
     check_decode_routes(4096, 2048)
-    check_decode_routes(1200, 300)
+    for n_s in (1200, 960, 768, 400, 1920):
+        check_decode_routes(n_s, n_s // 4)
+    check_decode_routes(1344, 336)
     ss.reset_launches()
 
     # R and the magnitude encode on the FFT route (fft_smem.cuh:frames_rfft)
@@ -1534,11 +1539,12 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
       scan, SNR at least 100 dB after the delay), N (``pghi``) and O
       (``pghi_gl``), each against the card's generic scan under a generator
       in the same state by spectral convergence within ``1.1 s + 1e-3``.
-      Their encode (``scan_forward``), magnitude encodes, L and M take the
-      smooth route (1200 = 2^4 3 5^2); the decodes (S, P, O's synthesis) the
-      product route; those launches are the smooth and product rows' counts.
-      The same sessions at 1344/336 (2^6 3 7) run R, L, M and the magnitude
-      encode on the product route: those rows' counts.
+      Their encode (``scan_forward``), magnitude encodes, L, M and the
+      decodes (S, P, O's synthesis) take the smooth route (1200 = 2^4 3 5^2):
+      those launches are the smooth rows' counts.  The same sessions at
+      1344/336 (2^6 3 7), the complex decode and ``pghi_gl`` among them, run
+      R, L, M, the magnitude encode and the decodes on the product route:
+      those rows' counts.
     * E and F on the product route through the entry points: the DGT
       magnitude chain at 768/256 (``fuse_fit`` + ``fuse_forward`` on up to 16
       clips), its fit and forward within 1e-5 / 1e-4 of the eager chain's, as
@@ -1647,16 +1653,16 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     log(f"    the session vs the CPU's generic scan: rel {e_y:.3e} (tol 1e-04); SNR after the delay {snr_c:.2f} dB "
         f"(must be >= 100)")
     require(e_y <= 1e-4 and snr_c >= 100.0, "1200/300 complex roundtrip: the session differs from the generic scan")
-    # S on the product route: the complex decode of that encode, against the
+    # S on the smooth route: the complex decode of that encode, against the
     # CPU's generic scan
-    y_s = route("1200/300 complex decode: scan_invert (the product route)",
+    y_s = route("1200/300 complex decode: scan_invert (the smooth route)",
                 lambda: streaming.scan_invert(chain, f_c, chunk // hop), {"session_complex_decode": 1}, main=False,
-                front="product")
+                front="smooth")
     e_s = rel_err(y_s.cpu(), streaming.scan_invert(c_p, f_c.cpu(), chunk // hop))
     log(f"    the session vs the CPU's generic scan: rel {e_s:.3e} (tol 1e-04)")
     require(torch.isfinite(y_s).all().item() and e_s <= 1e-4,
             "1200/300 complex decode: the session differs from the generic scan")
-    # M on the product route, against the card's generic scan with a generator in the same state
+    # M on the smooth route, against the card's generic scan with a generator in the same state
     y_m = route("1200/300 random roundtrip (the smooth route)",
                 lambda: streaming.scan_roundtrip(chain, xs, chunk, "random", generator=sgen(154)),
                 {"session_random_roundtrip": 1}, main=False, front="smooth")
@@ -1687,10 +1693,9 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     ):
         require(streaming.plan_roundtrip(chain, tuple(xs.shape), chunk, mode, device=dev) == mode,
                 f"1200/300 {mode}: must plan the session")
-        y_k = route(f"1200/300 {mode} roundtrip",
+        y_k = route(f"1200/300 {mode} roundtrip (the smooth route)",
                     lambda: streaming.scan_roundtrip(chain, xs, chunk, mode, generator=sgen(153)), expect,
-                    main=False, front={"session_magnitude": "smooth", "session_random_decode": "product",
-                                       "gl_project_synthesis": "product"})
+                    main=False, front="smooth")
         y_g = generic(f"1200/300 {mode} generic", lambda: streaming.scan_roundtrip(
             chain, xs, chunk, mode, generator=sgen(153), backend="generic"))
         s_k, s_g = sc(y_k), sc(y_g)
@@ -1701,8 +1706,8 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
         if mode == "pghi_gl":       # the two-launch polish: O's analysis row counts these
             counts["gl_project_analysis"] += n_ch * iters
 
-    # R, L, M and the magnitude encode on the product route: the same
-    # sessions at 1344/336 (2^6 3 7: neither the FFT nor the smooth route)
+    # R, L, M, the magnitude encode and the decodes on the product route: the
+    # same sessions at 1344/336 (2^6 3 7: neither the FFT nor the smooth route)
     n_x, hop_x, chunk_x = 1344, 336, 2688
     xs_x = mono[:4, :8 * chunk_x].contiguous()
     chain_x = T.OverlapAdd(n_x, hop_x) + T.RealtimeSTFT(n_fft=n_x, hop_length=hop_x)
@@ -1720,6 +1725,13 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     log(f"    the sessions vs the CPU's generic scan: encode rel {e_fx:.3e}, complex roundtrip rel {e_yx:.3e} (tol "
         f"1e-04); SNR after the delay {snr_x:.2f} dB (must be >= 100)")
     require(e_fx <= 1e-4 and e_yx <= 1e-4 and snr_x >= 100.0, "1344/336: the sessions differ from the generic scan")
+    y_sx = route("1344/336 complex decode: scan_invert (the product route)",
+                 lambda: streaming.scan_invert(chain_x, f_x, chunk_x // hop_x), {"session_complex_decode": 1},
+                 main=False, front="product")
+    e_sx = rel_err(y_sx.cpu(), streaming.scan_invert(c_px, f_x.cpu(), chunk_x // hop_x))
+    log(f"    the session vs the CPU's generic scan: rel {e_sx:.3e} (tol 1e-04)")
+    require(torch.isfinite(y_sx).all().item() and e_sx <= 1e-4,
+            "1344/336 complex decode: the session differs from the generic scan")
     y_mx = route("1344/336 random roundtrip (the product route)",
                  lambda: streaming.scan_roundtrip(chain_x, xs_x, chunk_x, "random", generator=sgen(155)),
                  {"session_random_roundtrip": 1}, main=False, front="product")
@@ -1737,17 +1749,26 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
         ref, m = spec(xs_x[..., : n - d]), spec(y[..., d:n])
         k = min(m.shape[-1], ref.shape[-1]) - 2
         return (torch.linalg.norm(m[..., 2:k] - ref[..., 2:k]) / torch.linalg.norm(ref[..., 2:k])).item()
-    y_kx = route("1344/336 pghi roundtrip (the product route)",
-                 lambda: streaming.scan_roundtrip(chain_x, xs_x, chunk_x, "pghi", generator=sgen(156)),
-                 {"session_magnitude": 1, "rt_pghi_phases": 1, "session_random_decode": 1}, main=False,
-                 front="product")
-    y_gx = generic("1344/336 pghi generic", lambda: streaming.scan_roundtrip(
-        chain_x, xs_x, chunk_x, "pghi", generator=sgen(156), backend="generic"))
-    s_k, s_g = sc_x(y_kx), sc_x(y_gx)
-    log(f"    vs the generic scan: spectral convergence {s_k:.5f} / {s_g:.5f} (must be <= {1.1 * s_g + 1e-3:.5f})")
-    require(y_kx.shape == y_gx.shape and torch.isfinite(y_kx).all().item() and s_k <= 1.1 * s_g + 1e-3,
-            "1344/336 pghi: the session converges worse than the generic scan")
-    del y_x, f_x, y_mx, y_kx, y_gx
+    n_chx, iters_x = xs_x.shape[-1] // chunk_x, chain_x[1].gl_iterations
+    for mode, expect in (
+        ("pghi", {"session_magnitude": 1, "rt_pghi_phases": 1, "session_random_decode": 1}),
+        ("pghi_gl", {"session_magnitude": 1, "rt_pghi_seeded": n_chx, "gl_project_synthesis": n_chx * iters_x,
+                     "gl_project_analysis": n_chx * iters_x, "session_random_decode": 1}),
+    ):
+        require(streaming.plan_roundtrip(chain_x, tuple(xs_x.shape), chunk_x, mode, device=dev) == mode,
+                f"1344/336 {mode}: must plan the session")
+        y_kx = route(f"1344/336 {mode} roundtrip (the product route)",
+                     lambda: streaming.scan_roundtrip(chain_x, xs_x, chunk_x, mode, generator=sgen(156)), expect,
+                     main=False, front="product")
+        y_gx = generic(f"1344/336 {mode} generic", lambda: streaming.scan_roundtrip(
+            chain_x, xs_x, chunk_x, mode, generator=sgen(156), backend="generic"))
+        s_k, s_g = sc_x(y_kx), sc_x(y_gx)
+        log(f"    vs the generic scan: spectral convergence {s_k:.5f} / {s_g:.5f} (must be <= {1.1 * s_g + 1e-3:.5f})")
+        require(y_kx.shape == y_gx.shape and torch.isfinite(y_kx).all().item() and s_k <= 1.1 * s_g + 1e-3,
+                f"1344/336 {mode}: the session converges worse than the generic scan")
+        if mode == "pghi_gl":       # the two-launch polish: O's analysis row counts these
+            counts["gl_project_analysis"] += n_chx * iters_x
+    del y_x, f_x, y_mx, y_kx, y_gx, y_sx
 
     # C and D on the product route: the Griffin-Lim invert of an STFT(768,
     # 192, hann) (n_fft no power of two) on 16 clips, converging like the
@@ -3154,20 +3175,27 @@ def main() -> int:
                     == ss._roundtrip_smem_bytes(rows, ov_s, hop_s, kn, kp)
                     and lib.att_session_decode_smem_bytes(rows, ov_s, kp) == ss._decode_smem_bytes(rows, ov_s, kp),
                     "session kernels' shared-memory size: wrapper and source disagree")
-    # the smooth route of R / the magnitude encode and of L / M: both layouts
-    # at every size it takes from 64 to 4096 with hop n_fft / 4, at the plans'
-    # team counts and fewer
+    # the smooth route of R / the magnitude encode, of L / M and of the
+    # decodes (P, S, O's synthesis): every layout at every size it takes from
+    # 64 to 4096 with hop n_fft / 4, at the plans' team counts and fewer
     for n_fft_s in [n for n in range(64, 4097, 4) if ff.fft_covers_smooth(n) and (n // 4) % 4 == 0]:
         hop_s = n_fft_s // 4
         (rows_e, teams_e), (rows_r, teams_r) = ss._encode_plan(n_fft_s, hop_s), ss._roundtrip_plan(n_fft_s, hop_s)
-        require(teams_e > 0 and teams_r > 0 and ss.session_route(n_fft_s) == "smooth",
-                f"{n_fft_s}/{hop_s}: the encode and the roundtrip must take the smooth route")
+        plans_d = [ss._decode_plan(n_fft_s, hop_s, narrow) for narrow in (None, ss.PROJECT_SYN_ROWS)]
+        require(teams_e > 0 and teams_r > 0 and all(tm > 0 for _, tm in plans_d)
+                and ss.session_route(n_fft_s) == "smooth",
+                f"{n_fft_s}/{hop_s}: the encode, the roundtrip and the decode must take the smooth route")
         for tm in sorted({1, teams_e}):
             require(lib.att_session_encode_fft_smem_bytes(rows_e, hop_s, n_fft_s, tm)
                     == ss._encode_fft_smem_bytes(rows_e, hop_s, n_fft_s, tm)
                     and lib.att_session_roundtrip_fft_smem_bytes(rows_r, 4, hop_s, tm)
                     == ss._roundtrip_fft_smem_bytes(rows_r, 4, hop_s, tm),
                     f"{n_fft_s}/{hop_s}: the smooth route's shared-memory size: wrapper and source disagree")
+        for rows_d, teams_d in plans_d:
+            for tm in sorted({1, teams_d}):
+                require(lib.att_session_decode_fft_smem_bytes(rows_d, hop_s, n_fft_s, tm)
+                        == ss._decode_fft_smem_bytes(rows_d, hop_s, n_fft_s, tm) <= ff.MAX_SMEM,
+                        f"{n_fft_s}/{hop_s}: the decode's smooth shared-memory size: wrapper and source disagree")
     # the FFT route of R / the magnitude encode and of E / F: both layouts at
     # every size the route takes, with the plans' team counts and fewer
     n_fft_checked = 0
@@ -5052,15 +5080,15 @@ def main() -> int:
     # the angles read and, per bin, |X|, a sincos and two products (26
     # operations); P reads magnitudes and angles, writes the audio, one
     # inverse FFT, the window, the overlap-add and 22 operations per bin.
-    # The design of P and S (their product route at 1200/300, 592 frames a
-    # session), and the product route of R, L and M (1344/336 = 2^6 3 7, 528
-    # frames), runs the full-length products: the analysis of every frame a
+    # The product route of R, L, M, P and S (1344/336 = 2^6 3 7, 528
+    # frames) runs the full-length products: the analysis of every frame a
     # block holds (n_fft rounded to 32 x 128-bin column tiles, cos and sin)
     # and the synthesis of 8 ceil(R / 8) chunks x overlap x Kp x hop per
-    # block; R's FFT route does fft_design_flops, its smooth route (1200/300)
-    # smooth_design_flops, its product route the analysis product; the FFT
-    # and smooth routes of L and M a forward and an inverse FFT of rows + 2
-    # overlap frames a block of rows chunks.  The yardsticks (timed, used
+    # block; R's FFT route does fft_design_flops, its smooth route (1200/300,
+    # 592 frames) smooth_design_flops, its product route the analysis
+    # product; the FFT and smooth routes of L and M a forward and an inverse
+    # FFT of rows + 2 overlap frames a block of rows chunks, those of P and S
+    # an inverse FFT of as many (the pack's operations as the split's).  The yardsticks (timed, used
     # nowhere): torch.stft(center=False) on the padded rows; torch.fft.irfft
     # x the synthesis window + fold.
     ss = stream["ss"]
@@ -5095,7 +5123,7 @@ def main() -> int:
             pair += (n / r) * (bfly[r] + (6.0 * (r - 1) if st < len(rad) - 1 else 0.0))
         return pair * frames / 2.0
 
-    n_fft_q, hop_q = 1200, 300          # the smooth route's shape (R, L, M), the decodes' product route's
+    n_fft_q, hop_q = 1200, 300          # the smooth route's shape (R, L, M, P, S, O's synthesis)
     F_q, T_q = n_fft_q // 2 + 1, -(-STREAM_LEN // 2400) * 8
     w_q = torch.hann_window(n_fft_q, device=dev)
     q_ops = ss._encode_operands(w_q, n_fft_q)
@@ -5168,16 +5196,24 @@ def main() -> int:
         return y.reshape(SB, -1)[:, : n_sf * HOP]
 
     # P and S on the FFT route: per block of r_dec chunks, frames_irfft of
-    # r_dec + 2 overlap frames (fft_design_flops); their product route at
-    # 1200/300: the synthesis product of 8 ceil(R / 8) chunks x overlap x Kp x
-    # hop per block of R chunks
+    # r_dec + 2 overlap frames (fft_design_flops); on the smooth route at
+    # 1200/300 the mixed-radix frames_irfft of as many (smooth_design_flops);
+    # their product route at 1344/336: the synthesis product of 8 ceil(R / 8)
+    # chunks x overlap x Kp x hop per block of R chunks
     dec_design = fft_design_flops(N_FFT, SB * t_dec * (r_dec + 2 * ov))
     q_dec_ops = ss._decode_operands(q_rt.inv_window, float(ov_q), n_fft_q, hop_q)
     q_spec = lib_encode_q().transpose(1, 2).contiguous()
     q_mags = q_spec.abs().contiguous()
     q_spec_ri = torch.view_as_real(q_spec).contiguous()
     r_dq = ss._decode_plan(n_fft_q, hop_q)[0]
-    q_dec_design = 2.0 * SB * -(-T_q // r_dq) * 8 * -(-r_dq // 8) * ov_q * ss._k_padded(F_q) * hop_q
+    q_dec_design = smooth_design_flops(n_fft_q, SB * -(-T_q // r_dq) * (r_dq + 2 * ov_q))
+    x_dec_ops = ss._decode_operands(x_rt.inv_window, float(ov_x), n_fft_x, hop_x)
+    x_spec = lib_encode_x().transpose(1, 2).contiguous()
+    x_mags = x_spec.abs().contiguous()
+    x_spec_ri = torch.view_as_real(x_spec).contiguous()
+    r_dx = ss._decode_plan(n_fft_x, hop_x)[0]
+    x_dec_design = 2.0 * SB * -(-T_x // r_dx) * 8 * -(-r_dx // 8) * ov_x * ss._k_padded(F_x) * hop_x
+    require(q_dec_ops[0] is None and x_dec_ops[1] is None, "phase 5: the decodes' smooth and product operands")
 
     stream_src = "acids_transforms_tpu_torch/csrc/stream_step.cu"
     stream_tpu = "acids_transforms_tpu/ops/pallas/stream_step.py"
@@ -5253,13 +5289,20 @@ def main() -> int:
              library=lambda: lib_synth(torch.polar(s_mags, s_ang)),
              bound=bound_of(8.0 * s_fr * F + s_out, s_fft + 2.0 * N_FFT * s_fr + 22.0 * s_fr * F),
              ceiling=ceiling_of(dec_design + 22.0 * s_fr * F)),
-        dict(key="P_product", name="session_random_decode_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
-             front_end="product", replaces=stream_tpu + ":1328", launches=counts["session_random_decode:product"],
+        dict(key="P_smooth", name="session_random_decode_smooth", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="smooth", replaces=stream_tpu + ":1328", launches=counts["session_random_decode:smooth"],
              run=lambda: ss._launch_decode(q_mags, q_ang, q_dec_ops, n_fft_q, hop_q),
              plain=lambda: ss.session_decode_reference(q_mags, q_ang, q_rt.inv_window, float(ov_q), n_fft_q, hop_q),
              library=lambda: lib_synth_q(torch.polar(q_mags, q_ang)),
              bound=bound_of(8.0 * q_fr * F_q + q_out, q_fft + 2.0 * n_fft_q * q_fr + 22.0 * q_fr * F_q),
              ceiling=ceiling_of(q_dec_design + 22.0 * q_fr * F_q)),
+        dict(key="P_product", name="session_random_decode_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
+             front_end="product", replaces=stream_tpu + ":1328", launches=counts["session_random_decode:product"],
+             run=lambda: ss._launch_decode(x_mags, x_ang, x_dec_ops, n_fft_x, hop_x),
+             plain=lambda: ss.session_decode_reference(x_mags, x_ang, x_rt.inv_window, float(ov_x), n_fft_x, hop_x),
+             library=lambda: lib_synth_x(torch.polar(x_mags, x_ang)),
+             bound=bound_of(8.0 * x_fr * F_x + x_out, x_fft + 2.0 * n_fft_x * x_fr + 22.0 * x_fr * F_x),
+             ceiling=ceiling_of(x_dec_design + 22.0 * x_fr * F_x)),
     ]
     # ---- the RT-PGHI sessions and the complex decode (phase 4g's shape).
     # The magnitude encode: R's analysis, |X| written instead of (re, im), the
@@ -5313,21 +5356,29 @@ def main() -> int:
              library=lambda: lib_synth(rt_spec),
              bound=bound_of(8.0 * s_fr * F + s_out, s_fft + 2.0 * N_FFT * s_fr),
              ceiling=ceiling_of(dec_design)),
-        dict(key="S_product", name="session_complex_decode_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
-             front_end="product", replaces=stream_tpu + ":1803", launches=counts["session_complex_decode:product"],
+        dict(key="S_smooth", name="session_complex_decode_smooth", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="smooth", replaces=stream_tpu + ":1803", launches=counts["session_complex_decode:smooth"],
              run=lambda: ss._launch_decode(q_spec_ri, None, q_dec_ops, n_fft_q, hop_q),
              plain=lambda: ss.session_complex_decode_reference(q_spec, q_rt.inv_window, float(ov_q), n_fft_q, hop_q),
              library=lambda: lib_synth_q(q_spec),
              bound=bound_of(8.0 * q_fr * F_q + q_out, q_fft + 2.0 * n_fft_q * q_fr),
              ceiling=ceiling_of(q_dec_design)),
+        dict(key="S_product", name="session_complex_decode_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
+             front_end="product", replaces=stream_tpu + ":1803", launches=counts["session_complex_decode:product"],
+             run=lambda: ss._launch_decode(x_spec_ri, None, x_dec_ops, n_fft_x, hop_x),
+             plain=lambda: ss.session_complex_decode_reference(x_spec, x_rt.inv_window, float(ov_x), n_fft_x, hop_x),
+             library=lambda: lib_synth_x(x_spec),
+             bound=bound_of(8.0 * x_fr * F_x + x_out, x_fft + 2.0 * n_fft_x * x_fr),
+             ceiling=ceiling_of(x_dec_design)),
     ]
     # ---- O (phase 4g's pghi_gl shape: one chunk's grid of gl_context 3 +
     # 16 frames, 64 sessions; the port pads it with 3 zero frames, which the
     # bounds do not count).  The polish (Opol) runs every projection of it in
     # one launch.  The two-launch projection runs where the polish does not
     # take the grid, and its rows are timed there (4096/1024 with
-    # gl_context 1 for the synthesis's FFT route, 1200/300 for its product
-    # route and the analysis).  The projection's synthesis is P's kernel in
+    # gl_context 1 for the synthesis's FFT route, 1200/300 for its smooth
+    # route and the analysis, 1344/336 for its product route).  The
+    # projection's synthesis is P's kernel in
     # blocks of 8 chunks; what the function needs of it: the grid's
     # magnitudes and phases read, the overlap-add signal from the first
     # polished frame on written ((Tp - ctx) hop samples: the analysis reads
@@ -5359,8 +5410,9 @@ def main() -> int:
     g_rows = g_tx - g_ctx
     g_upd = g_rows - (g_hi - g_lo)          # rows the analysis computes and writes
     g_el = float(SB * g_upd * F)
-    # O's synthesis on the product route: a grid of 3 pinned + 8 + 3 zero
-    # frames at 1200/300 (phase 4h's sessions), random magnitudes and phases
+    # O's synthesis on the smooth route: a grid of 3 pinned + 8 + 3 zero
+    # frames at 1200/300 (phase 4h's sessions), random magnitudes and phases;
+    # on the product route the same grid at 1344/336
     gq_tp = g_ctx + 8 + ov_q - 1
     gq_g = torch.Generator(device=dev).manual_seed(args.seed + 56)
     gm_q = torch.rand((SB, gq_tp, F_q), generator=gq_g, device=dev)
@@ -5374,6 +5426,20 @@ def main() -> int:
         y = torch.nn.functional.fold(fr.transpose(1, 2), (1, (gq_tp - 1) * hop_q + n_fft_q), (1, n_fft_q),
                                      stride=(1, hop_q))
         return y.reshape(SB, -1)[:, : gq_tp * hop_q]
+
+    gq_rows_syn = ss._decode_plan(n_fft_q, hop_q, ss.PROJECT_SYN_ROWS)[0]
+    gx_tp = g_ctx + 8 + ov_x - 1
+    gm_x = torch.rand((SB, gx_tp, F_x), generator=gq_g, device=dev)
+    gm_x[:, -(ov_x - 1):] = 0.0
+    gp_x = 2 * math.pi * torch.rand((SB, gx_tp, F_x), generator=gq_g, device=dev)
+    gx_ops = ss._decode_operands(x_rt.inv_window, float(ov_x), n_fft_x, hop_x)
+    gx_fr = float(SB * (gx_tp - (ov_x - 1)))
+
+    def lib_proj_synth_x():
+        fr = torch.fft.irfft(torch.polar(gm_x, gp_x), n=n_fft_x) * (x_rt.inv_window / ov_x)
+        y = torch.nn.functional.fold(fr.transpose(1, 2), (1, (gx_tp - 1) * hop_x + n_fft_x), (1, n_fft_x),
+                                     stride=(1, hop_x))
+        return y.reshape(SB, -1)[:, : gx_tp * hop_x]
 
     # O's projection synthesis on the FFT route where it now runs: the
     # two-launch projection of a grid that the polish does not take, phase
@@ -5471,8 +5537,8 @@ def main() -> int:
                             2.5 * gf_n * math.log2(gf_n) * gf_fr + gf_n * gf_fr + 22.0 * gf_fr * gf_F),
              ceiling=ceiling_of(fft_design_flops(gf_n, SB * gf_tiles * (gf_rows_syn + 2 * gf_ov))
                                 + 22.0 * gf_fr * gf_F)),
-        dict(key="Osyn_product", name="gl_project_synthesis_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
-             front_end="product", replaces=stream_tpu + ":940", launches=counts["gl_project_synthesis:product"],
+        dict(key="Osyn_smooth", name="gl_project_synthesis_smooth", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="smooth", replaces=stream_tpu + ":940", launches=counts["gl_project_synthesis:smooth"],
              run=lambda: ss._launch_decode(gm_q, gp_q, gq_ops, n_fft_q, hop_q, rows=ss.PROJECT_SYN_ROWS,
                                            name="gl_project_synthesis"),
              plain=lambda: ss._synthesis_reference(gm_q * torch.cos(gp_q), gm_q * torch.sin(gp_q), q_rt.inv_window,
@@ -5480,7 +5546,18 @@ def main() -> int:
              library=lib_proj_synth_q,
              bound=bound_of(8.0 * gq_fr * F_q + 4.0 * SB * (gq_tp - g_ctx) * hop_q,
                             2.5 * n_fft_q * math.log2(n_fft_q) * gq_fr + n_fft_q * gq_fr + 22.0 * gq_fr * F_q),
-             ceiling=ceiling_of(2.0 * SB * -(-gq_tp // 8) * 8 * ov_q * ss._k_padded(F_q) * hop_q + 22.0 * gq_fr * F_q)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_q, SB * -(-gq_tp // gq_rows_syn) * (gq_rows_syn + 2 * ov_q))
+                                + 22.0 * gq_fr * F_q)),
+        dict(key="Osyn_product", name="gl_project_synthesis_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
+             front_end="product", replaces=stream_tpu + ":940", launches=counts["gl_project_synthesis:product"],
+             run=lambda: ss._launch_decode(gm_x, gp_x, gx_ops, n_fft_x, hop_x, rows=ss.PROJECT_SYN_ROWS,
+                                           name="gl_project_synthesis"),
+             plain=lambda: ss._synthesis_reference(gm_x * torch.cos(gp_x), gm_x * torch.sin(gp_x), x_rt.inv_window,
+                                                   float(ov_x), n_fft_x, hop_x, gx_tp),
+             library=lib_proj_synth_x,
+             bound=bound_of(8.0 * gx_fr * F_x + 4.0 * SB * (gx_tp - g_ctx) * hop_x,
+                            2.5 * n_fft_x * math.log2(n_fft_x) * gx_fr + n_fft_x * gx_fr + 22.0 * gx_fr * F_x),
+             ceiling=ceiling_of(2.0 * SB * -(-gx_tp // 8) * 8 * ov_x * ss._k_padded(F_x) * hop_x + 22.0 * gx_fr * F_x)),
         dict(key="Opol", name="gl_polish", source=stream_src + " (+ csrc/fft_smem.cuh)", front_end="fft",
              replaces=stream_tpu + ":940", launches=counts["gl_polish:fft"],
              run=lambda: ss.gl_polish(gm, g_pol, g_syn, g_rt.inv_window, g_rt.window, None, None, N_FFT, HOP, g_ctx,

@@ -1,4 +1,6 @@
-"""The mixed-radix (smooth) route of R, N's magnitude encode, L and M:
+"""The mixed-radix (smooth) route of R, N's magnitude encode, L, M and the
+decodes (P, S, O's projection synthesis; their sessions in
+``tests/test_torch_stream_decode_smooth.py``):
 ``ops/cuda/frames_fft.py`` (``fft_covers_smooth``, ``fft_radices``, the
 ``smooth=True`` schedule of ``frames_rfft_reference`` /
 ``frames_irfft_reference``) and the session wrappers that pick it.
@@ -14,9 +16,10 @@
   no session layout at these shapes) within 1e-4 of the largest value, as
   ``tests/test_torch_stream_kernel.py`` holds them, and against the float64
   session oracle within 1e-5;
-* the route rule: R and L smooth at 1200/300, the decodes and the other
-  kernels on their product routes there, the products at 1344/336 (2^6 3 7),
-  and every shape the encode and roundtrip gates took before still taken.
+* the route rule: R, L and the decodes smooth at 1200/300, the polish and
+  the other kernels on their product routes there, the products at 1344/336
+  (2^6 3 7), and every shape the encode, roundtrip and decode gates took
+  before still taken.
 
 On the card ``chip_smoke.py`` holds the kernels against these plain versions
 (bit-identical at 1200/300, 960/240, 768/192, 400/100 and 1920/480).
@@ -191,19 +194,20 @@ def test_l_and_m_vs_jax_scan_and_oracle(n, hop):
 
 
 def test_route_rule():
-    """R and L smooth at 1200/300 and 960/240; the decodes, the polish and
+    """R, L and the decodes smooth at 1200/300 and 960/240; the polish and
     the full-K kernels keep ``fft_covers``; 1344/336 on the products."""
     for n, hop in SESSION_SHAPES + [(768, 192), (400, 100), (1920, 480)]:
         assert PK.session_route(n) == "smooth"
         assert PK._encode_plan(n, hop)[1] > 0 and PK._roundtrip_plan(n, hop)[1] > 0
-        assert PK._decode_plan(n, hop)[1] == 0 and PK._polish_plan(n, hop, 20) is None
+        assert PK._decode_plan(n, hop)[1] > 0 and PK._decode_plan(n, hop, PK.PROJECT_SYN_ROWS)[1] > 0
+        assert PK._polish_plan(n, hop, 20) is None
     assert SP._kernel_plan(768, 192, None)[1] == 0 and SP._kernel_plan(1920, 480, None)[1] == 0    # E and F
     assert PK._encode_plan(1200, 300) == (16, 2) and PK._roundtrip_plan(1200, 300) == (16, 2)
     # the plans a sweep of every plan on the H100 found fastest (frames_fft.class_plan_smooth)
     assert PK._roundtrip_plan(960, 240) == (56, 4) and PK._roundtrip_plan(1920, 480) == (24, 2)
     assert PK._roundtrip_plan(768, 192) == (24, 4) and PK._roundtrip_plan(400, 100) == (56, 8)
     assert PK._encode_plan(1920, 480) == (8, 2)
-    assert PK._decode_plan(1200, 300) == (PK._pick_rows("decode", 1200, 300), 0)
+    assert PK._decode_plan(1344, 336) == (PK._pick_rows("decode", 1344, 336), 0)
     assert PK.session_route(1344) == "product"
     assert PK._encode_plan(1344, 336) == (PK._pick_rows("encode", 1344, 336), 0)
     assert PK._roundtrip_plan(1344, 336) == (PK._pick_rows("roundtrip", 1344, 336), 0)
@@ -235,6 +239,13 @@ def test_every_shape_taken_before_is_still_taken():
                 rows, teams = PK._roundtrip_plan(n, hop)
                 assert rows % (2 * ov) == 0 and 1 <= teams <= FF.fft_smooth_max_teams(n)
                 assert PK._roundtrip_fft_smem_bytes(rows, ov, hop, teams) <= PK.MAX_SMEM
+            if PK._pick_rows("decode", n, hop) is not None:
+                assert PK.kernel_covers("decode", n, hop), (n, hop)
+                for narrow in (None, PK.PROJECT_SYN_ROWS):
+                    rows, teams = PK._decode_plan(n, hop, narrow)
+                    if PK.session_route(n) == "smooth":
+                        assert rows % (2 * ov) == 0 and 1 <= teams <= FF.fft_smooth_max_teams(n), (n, hop)
+                        assert PK._decode_fft_smem_bytes(rows, hop, n, teams) <= PK.MAX_SMEM
 
 
 def test_no_route_counted_on_the_cpu():
@@ -246,10 +257,9 @@ def test_no_route_counted_on_the_cpu():
     PK.make_fused_roundtrip(pc, 2400)(x)
     assert not any(PK.routes.values()) and not any(PK.launches.values())
     assert {"session_encode:smooth", "session_magnitude:smooth", "session_roundtrip:smooth",
-            "session_random_roundtrip:smooth"} <= set(PK.routes)
-    assert not any(k.endswith(":smooth") for k in PK.routes
-                   if k.split(":")[0] in ("session_random_decode", "session_complex_decode",
-                                          "gl_project_synthesis", "gl_polish"))
+            "session_random_roundtrip:smooth", "session_random_decode:smooth", "session_complex_decode:smooth",
+            "gl_project_synthesis:smooth"} <= set(PK.routes)
+    assert not any(k.endswith(":smooth") for k in PK.routes if k.startswith("gl_polish"))
 
 
 def test_bank_conflicts_of_the_stages():

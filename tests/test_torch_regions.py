@@ -39,9 +39,10 @@ def _chain(n_fft=1024, hop=256, mode=None, feature=False, ola_hop=None):
 def test_table_loads_and_values_measured():
     t = regions.table()
     s = t["streaming"]
-    assert s["angle_cap_bytes"] == 6271533056 and regions.angle_cap_bytes() == 6271533056
-    assert s["sinebank_cap_bytes"] == 8404336640 and regions.sinebank_cap_bytes() == 8404336640
-    # every session route won at B = 1, 8, 64 and 256: no cap
+    assert s["angle_cap_bytes"] == 6307184640 and regions.angle_cap_bytes() == 6307184640
+    assert s["sinebank_cap_bytes"] == 8368685056 and regions.sinebank_cap_bytes() == 8368685056
+    # every session route won at B = 1, 8, 64 and 256, at 1024/256 and 1200/300: no cap
+    assert "1200/300" in s["_batch_why"]
     assert s["batch_caps"] == {"complex": None, "complex_decode": None, "encode": None, "pghi": None,
                                "pghi_gl": None, "random": None}
     assert all(regions.batch_cap(m) is None for m in s["batch_caps"])

@@ -141,12 +141,13 @@ def test_projection_synthesis_vs_jax_and_oracle(n_fft, hop):
     assert torch.equal(got[:, ctx:Tp - (ov - 1)], torch.where(upd, new, p_t[:, ctx:Tp - (ov - 1)]))
 
 
-def emulate_blocks(re, im, wsyn, n_fft, hop, rows):
+def emulate_blocks(re, im, wsyn, n_fft, hop, rows, smooth=False):
     """The decode's FFT route block by block, as ``session_decode_fft_kernel``
     computes it: a block owns the output chunks ``j0 .. j0 + rows - 1`` and
     synthesizes the frames ``j0 - (overlap - 1) ..`` (pairs (r, r + overlap)
     of its local numbering: the session's when ``rows`` is a multiple of ``2
-    overlap``), adding them into its chunks in class order."""
+    overlap``), adding them into its chunks in class order.  ``smooth``: the
+    smooth route's instance (the mixed-radix schedule)."""
     ov = n_fft // hop
     m = ov - 1
     B, T, F = re.shape
@@ -160,7 +161,7 @@ def emulate_blocks(re, im, wsyn, n_fft, hop, rows):
         take = idx.clamp_min(0)
         zero = torch.zeros(())
         frames = frames_irfft_reference(torch.where(ok, re[:, take], zero), torch.where(ok, im[:, take], zero),
-                                        wsyn, ov)
+                                        wsyn, ov, smooth)
         buf = torch.zeros((B, rows * hop))
         n_out = (j_end - j0) * hop
         for c in range(ov):                            # class (f + overlap - 1) mod overlap, in order
@@ -202,7 +203,8 @@ def test_plans_routes_and_no_launch_on_the_cpu():
     """The FFT route's blocks: P and S's rows a multiple of 2 overlap with two
     blocks an SM where they fit (56 chunks, 4 FFTs at 1024/256); O's narrow
     blocks the smallest multiple of 2 overlap that holds 8 chunks; the
-    product route elsewhere (1200/300) keeps its height.  On the CPU every
+    product route at n_fft neither FFT route takes (1344/336) keeps its
+    height.  On the CPU every
     session runs its plain version and nothing is counted."""
     assert PK._decode_plan(1024, 256) == (56, 4)
     assert PK._decode_plan(1024, 256, PK.PROJECT_SYN_ROWS) == (8, 4)
@@ -217,11 +219,11 @@ def test_plans_routes_and_no_launch_on_the_cpu():
             rows, teams = PK._decode_plan(n_fft, hop)
             assert PK._decode_fft_smem_bytes(rows, hop, n_fft, teams) <= TWO_BLOCKS_SMEM
             assert PK.kernel_covers("decode", n_fft, hop)
-    assert not fft_covers(1200) and PK._decode_plan(1200, 300) == (PK._pick_rows("decode", 1200, 300), 0)
-    assert PK._decode_plan(1200, 300, 8) == (8, 0)
+    assert not fft_covers(1344) and PK._decode_plan(1344, 336) == (PK._pick_rows("decode", 1344, 336), 0)
+    assert PK._decode_plan(1344, 336, 8) == (8, 0)
     syn, wsyn, tw = PK._decode_operands(torch.hann_window(512), 4.0, 512, 128)
     assert syn is None and wsyn.shape == (512,) and tw.shape == (2, 512)
-    syn, wsyn, tw = PK._decode_operands(torch.hann_window(1200), 4.0, 1200, 300)
+    syn, wsyn, tw = PK._decode_operands(torch.hann_window(1344), 4.0, 1344, 336)
     assert syn.shape[0] == 4 and wsyn is None and tw is None
     _, pc = chains(256, 64)
     PK.reset_launches()
@@ -230,4 +232,4 @@ def test_plans_routes_and_no_launch_on_the_cpu():
     PS.scan_invert(pc, torch.polar(mags, mags), 8, backend="fused")
     assert not any(PK.launches.values()) and not any(PK.routes.values())
     assert {f"{k}:{r}" for k in ("session_random_decode", "session_complex_decode", "gl_project_synthesis")
-            for r in ("fft", "product")} <= set(PK.routes)
+            for r in ("fft", "smooth", "product")} <= set(PK.routes)
