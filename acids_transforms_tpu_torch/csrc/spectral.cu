@@ -4,12 +4,14 @@
 //   melspec_forward_kernel<.., kFrontFactored>  <- _forward_kernel_factored  (via _fused_call /
 //                                      fused_melspec; where n_fft is a power of two from
 //                                      64 to 4096 the wrapper sends it to the kFrontFft
-//                                      instance under the taps' own window)
+//                                      instance, where it is even and 5-smooth to the
+//                                      kFrontSmooth one, under the taps' own window)
 //   melspec_stats_kernel<.., kFrontFactored>    <- _stats_kernel_factored    (via _stats_call /
 //                                      fused_melspec_stats; the same rule)
-//   melspec_forward_kernel<.., kFrontFft / kFrontProduct>  <- _forward_kernel  (full-K: any
-//                                      window, taps=None)
-//   melspec_stats_kernel<.., kFrontFft / kFrontProduct>    <- _stats_kernel    (full-K)
+//   melspec_forward_kernel<.., kFrontFft / kFrontSmooth / kFrontProduct>  <- _forward_kernel
+//                                      (full-K: any window, taps=None)
+//   melspec_stats_kernel<.., kFrontFft / kFrontSmooth / kFrontProduct>    <- _stats_kernel
+//                                      (full-K)
 //   repr_forward_kernel<.., kFrontFactored> <- _repr_kernel_factored (via _repr_call /
 //                                     fused_spectral_repr), epilogue _repr_channels
 //   repr_forward_kernel<.., kFrontFft / kFrontProduct>  <- _repr_kernel  (full-K)
@@ -26,12 +28,16 @@
 //                              kFrontFactored> cut after one of its stages
 //
 // The full-K kernels differ from the factored ones only before the magnitude
-// (one epilogue, three front ends): frame t is the slice row[t hop, t hop +
+// (one epilogue, four front ends): frame t is the slice row[t hop, t hop +
 // n_fft) of the same padded rows.  Where n_fft is a power of two from 64 to
 // 4096 (fft_smem.cuh:fft_covers) the full-K kernels (E, F, G, H) take the
 // FFT route, kFrontFft: fft_smem.cuh:frames_rfft over the block's frames (the
 // window and the twiddle table staged once a block, no basis read), its
-// epilogue handed every bin of a frame pair.  Otherwise the product route,
+// epilogue handed every bin of a frame pair.  Where n_fft is even and
+// 2^a 3^b 5^c, 64 to 4096 and no power of two (fft_covers_smooth: 768, 640,
+// 1536, 1920, ...) E and F (and so A and B) take the smooth route,
+// kFrontSmooth: the same with frames_rfft<true>, the mixed-radix stages (G
+// and H keep their product route there).  Otherwise the product route,
 // kFrontProduct: a window-folded basis of n_fft x F (cos |
 // -sin), all F bins in one fp32 product; the contraction is n_fft long
 // instead of hop, so it does `overlap` times the multiply-adds of the
@@ -122,6 +128,12 @@ namespace att {
 constexpr int kFrontFactored = 0;  // chunk product, twiddle combine, taps conv (A, B)
 constexpr int kFrontProduct = 1;   // window-folded n_fft x F product (E, F where no FFT covers)
 constexpr int kFrontFft = 2;       // frames_rfft (E, F at a power of two n_fft, 64 .. 4096)
+constexpr int kFrontSmooth = 3;    // frames_rfft<true> (E, F at an even 5-smooth n_fft, no power of two)
+
+// the front ends that run frames_rfft
+__host__ __device__ constexpr bool front_is_fft(int front) {
+    return front == kFrontFft || front == kFrontSmooth;
+}
 
 // What the FFT route reads: the window (n_fft,) and the twiddle table (2,
 // n_fft), both on the device, and the FFTs a block runs side by side.
@@ -165,7 +177,7 @@ __device__ void load_rows(const void* __restrict__ x_rows, size_t row0, int n_ro
 }
 
 // Magnitudes (or powers) of one block's tile_t frames into mag_s[t * F + k].
-// The FFT route computes only the block's first t_valid frames (the rest are
+// The FFT and smooth routes compute only the block's first t_valid frames (the rest are
 // tile padding, which nothing reads: its frame pairs with a zero frame as in
 // frames_rfft_reference); `work` is the area after mag_s (AnaWork, or the
 // FFT's).  kStage < kStageMag cuts it short (see the stages above):
@@ -181,12 +193,13 @@ __device__ void block_magnitudes(const void* __restrict__ x_rows, long long b, i
     const int n_rows = tile_t + overlap - 1;
     static_assert(kFront == kFrontFactored || kStage == kStageFull,
                   "the floor sweep cuts the factored front end");
-    if constexpr (kFront == kFrontFft) {
+    if constexpr (front_is_fft(kFront)) {
+        constexpr bool kSmooth = kFront == kFrontSmooth;
         const int n_fft = overlap * hop;
-        const FftSmem fs = carve_fft(work, n_fft);
-        fft_stage(fft.win, fft.tw, fs, n_fft);  // load_rows' barrier covers it
+        const FftSmem fs = carve_fft<kSmooth>(work, n_fft);
+        fft_stage<kSmooth>(fft.win, fft.tw, fs, n_fft);  // load_rows' barrier covers it
         load_rows<kInt16>(x_rows, (size_t)b * n_rows_total + (size_t)tile * tile_t, n_rows, hop, xs);
-        frames_rfft(xs, t_valid, hop, n_fft, fs, fft.teams, [&](int t, int k, float re, float im) {
+        frames_rfft<kSmooth>(xs, t_valid, hop, n_fft, fs, fft.teams, [&](int t, int k, float re, float im) {
             const float p = __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
             mag_s[t * F + k] = power2 ? p : sqrtf(p);
         });  // frames_rfft ends with a barrier
@@ -287,11 +300,11 @@ __device__ void emit_tile(const float* mag_s, long long b, int t_base, int F, in
     }
 }
 
-// On the FFT route at most 128 registers a thread, so that two blocks share an
-// SM where the wrapper's tile lets their shared memory (ops/cuda/spectral.py:
-// _pick_fft_plan).
+// On the FFT and smooth routes at most 128 registers a thread, so that two
+// blocks share an SM where the wrapper's tile lets their shared memory
+// (ops/cuda/spectral.py: _pick_fft_plan, _pick_smooth_plan).
 template <bool kInt16, bool kBf16, int kFront>
-__global__ void __launch_bounds__(kThreads, kFront == kFrontFft ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, front_is_fft(kFront) ? 2 : 1)
 melspec_forward_kernel(const void* __restrict__ x_rows, int n_tiles, int tile_t,
                        int n_rows_total, int hop, int overlap, int F, int T,
                        const float* bcos, const float* bsin, const float* twr,
@@ -316,8 +329,18 @@ melspec_forward_kernel(const void* __restrict__ x_rows, int n_tiles, int tile_t,
     const int t_base = tile * tile_t;
     switch (tile_t) {
         case 32:
-            emit_tile<32, kBf16>(mag_s, b, t_base, F, T, contrast, mel_bank, mel_lo, mel_hi, M,
-                                 offset, scale, out);
+            if constexpr (kFront == kFrontSmooth) {
+                // two halves of 16 frames: 32 sums a thread beside the smooth
+                // FFT's code spilled 64 B at 128 registers (each frame's sum
+                // runs over the bank's rows in the same order either way)
+                emit_tile<16, kBf16>(mag_s, b, t_base, F, T, contrast, mel_bank, mel_lo, mel_hi, M,
+                                     offset, scale, out);
+                emit_tile<16, kBf16>(mag_s + (size_t)16 * F, b, t_base + 16, F, T, contrast, mel_bank,
+                                     mel_lo, mel_hi, M, offset, scale, out);
+            } else {
+                emit_tile<32, kBf16>(mag_s, b, t_base, F, T, contrast, mel_bank, mel_lo, mel_hi, M,
+                                     offset, scale, out);
+            }
             break;
         case 16:
             emit_tile<16, kBf16>(mag_s, b, t_base, F, T, contrast, mel_bank, mel_lo, mel_hi, M,
@@ -380,7 +403,7 @@ melspec_stage_kernel(const float* __restrict__ x_rows, int n_tiles, int tile_t,
 }
 
 template <bool kInt16, int kFront>
-__global__ void __launch_bounds__(kThreads, kFront == kFrontFft ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, front_is_fft(kFront) ? 2 : 1)
 melspec_stats_kernel(const void* __restrict__ x_rows, int n_tiles, int tile_t,
                      int n_rows_total, int hop, int overlap, int F, int T, const float* bcos, const float* bsin,
                      const float* twr, const float* twi, Taps taps, int contrast,
@@ -897,20 +920,33 @@ static size_t forward_smem_bytes(int tile_t, int hop, int overlap, int F) {
     return floats * sizeof(float);
 }
 
-// The FFT route: the same rows and magnitudes, then frames_rfft's area.
+// The FFT and smooth routes: the same rows and magnitudes, then
+// frames_rfft's area on the route n_fft takes.
 static size_t forward_fft_smem_bytes(int tile_t, int hop, int overlap, int F, int teams) {
     size_t floats = (size_t)(tile_t + overlap - 1) * hop + (size_t)tile_t * F +
-                    fft_smem_floats(overlap * hop, teams);
+                    fft_area_floats(overlap * hop, teams);
     return floats * sizeof(float);
 }
 
 // The shared arguments of att_melspec_forward and att_melspec_stats: whether
-// they hold, and the route's shared memory.
-static bool melspec_args_ok(int P, int overlap, int tile_t, int hop, int fft_teams) {
+// they hold, and the route's shared memory.  fft_teams > 0 takes the FFT
+// route where fft_covers(n_fft), the smooth route where fft_covers_smooth.
+static bool melspec_args_ok(int P, int overlap, int tile_t, int hop, int F, int fft_teams) {
+    const int n = overlap * hop;
     return P < kMaxTaps && overlap >= 1 && tile_t + overlap - 1 <= kMaxRows &&
            (tile_t == 32 || tile_t == 16 || tile_t == 8) && hop % kKC == 0 &&
-           (fft_teams == 0 || (P < 0 && fft_covers(overlap * hop) &&
-                               fft_teams <= fft_max_teams(overlap * hop)));
+           (fft_teams == 0 ||
+            (P < 0 && F == n / 2 + 1 &&
+             ((fft_covers(n) && fft_teams <= fft_max_teams(n)) ||
+              (fft_covers_smooth(n) && fft_teams <= fft_smooth_max_teams(n)))));
+}
+
+// The front end of a launch: P >= 0 the factored one; full-K, fft_teams > 0
+// the FFT route where fft_covers(n_fft), else the smooth one; else the product.
+static int melspec_front(int P, int n_fft, int fft_teams) {
+    if (P >= 0) return kFrontFactored;
+    if (fft_teams == 0) return kFrontProduct;
+    return fft_covers(n_fft) ? kFrontFft : kFrontSmooth;
 }
 
 static size_t melspec_smem_bytes(int tile_t, int hop, int overlap, int F, int fft_teams) {
@@ -956,7 +992,8 @@ long long att_melspec_smem_bytes(int tile_t, int hop, int overlap, int F) {
     return (long long)att::forward_smem_bytes(tile_t, hop, overlap, F);
 }
 
-// The same for the FFT route with `teams` FFTs side by side.
+// The same for the FFT route (n_fft a power of two) or the smooth route
+// (n_fft even, 5-smooth, no power of two) with `teams` FFTs side by side.
 long long att_melspec_fft_smem_bytes(int tile_t, int hop, int overlap, int F, int teams) {
     return (long long)att::forward_fft_smem_bytes(tile_t, hop, overlap, F, teams);
 }
@@ -968,10 +1005,12 @@ const char* att_error_string(int code) { return cudaGetErrorString((cudaError_t)
 // P >= 0: bcos / bsin are the (hop, F) chunk basis, twr / twi the twiddles.
 // P < 0 selects a full-K front end, twr / twi and taps_host not read: with
 // fft_teams > 0 the FFT route (n_fft = overlap hop a power of two from 64 to
-// 4096; window (n_fft,), fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft),
-// fft_teams <= 8192 / n_fft FFTs side by side; bcos / bsin not read), with
-// fft_teams == 0 the product route (bcos / bsin the window-folded (n_fft, F)
-// basis; window / fft_tw not read).  Returns a cudaError_t.
+// 4096, fft_teams <= 4096 / n_fft FFTs side by side) or the smooth route
+// (n_fft even, 2^a 3^b 5^c, 64 to 4096 and no power of two, fft_teams <=
+// fft_smooth_max_teams(n_fft)); window (n_fft,), fft_tw (2, n_fft) = (cos,
+// -sin)(2 pi j / n_fft); bcos / bsin not read; with fft_teams == 0 the
+// product route (bcos / bsin the window-folded (n_fft, F) basis; window /
+// fft_tw not read).  Returns a cudaError_t.
 int att_melspec_forward(const void* x_rows, int x_int16, long long B, int n_tiles, int tile_t,
                         int n_rows_total, int hop, int overlap, int F, int T,
                         const float* bcos, const float* bsin, const float* twr,
@@ -980,8 +1019,8 @@ int att_melspec_forward(const void* x_rows, int x_int16, long long B, int n_tile
                         const int* mel_hi, int M, const float* aff, void* out, int out_bf16,
                         const float* window, const float* fft_tw, int fft_teams, void* stream) {
     using namespace att;
-    if (!melspec_args_ok(P, overlap, tile_t, hop, fft_teams)) return (int)cudaErrorInvalidValue;
-    const int front = P >= 0 ? kFrontFactored : (fft_teams > 0 ? kFrontFft : kFrontProduct);
+    if (!melspec_args_ok(P, overlap, tile_t, hop, F, fft_teams)) return (int)cudaErrorInvalidValue;
+    const int front = melspec_front(P, overlap * hop, fft_teams);
     const size_t smem = melspec_smem_bytes(tile_t, hop, overlap, F, fft_teams);
     Taps taps = P < 0 ? unit_taps() : make_taps(taps_host, P);
     const FftArgs fft = {window, fft_tw, fft_teams};
@@ -999,6 +1038,7 @@ int att_melspec_forward(const void* x_rows, int x_int16, long long B, int n_tile
 #define ATT_LAUNCH_FWD_FR(I16, BF)                                                         \
     do {                                                                                   \
         if (front == kFrontFft) ATT_LAUNCH_FWD(I16, BF, kFrontFft);                        \
+        else if (front == kFrontSmooth) ATT_LAUNCH_FWD(I16, BF, kFrontSmooth);             \
         else if (front == kFrontProduct) ATT_LAUNCH_FWD(I16, BF, kFrontProduct);           \
         else ATT_LAUNCH_FWD(I16, BF, kFrontFactored);                                      \
     } while (0)
@@ -1060,7 +1100,8 @@ int att_melspec_stage(int stage, const float* x_rows, long long B, int n_tiles, 
 
 // partials: (B * n_tiles, 4, F) float32 scratch; stats: (4, F) float64 out
 // (rows: sum, sumsq, min, max per bin).  P < 0: a full-K front end, and
-// fft_teams selects its route, as in att_melspec_forward.  Returns a
+// fft_teams selects its route (FFT, smooth or product), as in
+// att_melspec_forward.  Returns a
 // cudaError_t.
 int att_melspec_stats(const void* x_rows, int x_int16, long long B, int n_tiles, int tile_t,
                       int n_rows_total, int hop, int overlap, int F, int T, const float* bcos,
@@ -1069,8 +1110,8 @@ int att_melspec_stats(const void* x_rows, int x_int16, long long B, int n_tiles,
                       double* stats, const float* window, const float* fft_tw, int fft_teams,
                       void* stream) {
     using namespace att;
-    if (!melspec_args_ok(P, overlap, tile_t, hop, fft_teams)) return (int)cudaErrorInvalidValue;
-    const int front = P >= 0 ? kFrontFactored : (fft_teams > 0 ? kFrontFft : kFrontProduct);
+    if (!melspec_args_ok(P, overlap, tile_t, hop, F, fft_teams)) return (int)cudaErrorInvalidValue;
+    const int front = melspec_front(P, overlap * hop, fft_teams);
     const size_t smem = melspec_smem_bytes(tile_t, hop, overlap, F, fft_teams);
     Taps taps = P < 0 ? unit_taps() : make_taps(taps_host, P);
     const FftArgs fft = {window, fft_tw, fft_teams};
@@ -1088,6 +1129,7 @@ int att_melspec_stats(const void* x_rows, int x_int16, long long B, int n_tiles,
 #define ATT_LAUNCH_STATS_FR(I16)                                                           \
     do {                                                                                   \
         if (front == kFrontFft) ATT_LAUNCH_STATS(I16, kFrontFft);                          \
+        else if (front == kFrontSmooth) ATT_LAUNCH_STATS(I16, kFrontSmooth);               \
         else if (front == kFrontProduct) ATT_LAUNCH_STATS(I16, kFrontProduct);             \
         else ATT_LAUNCH_STATS(I16, kFrontFactored);                                        \
     } while (0)

@@ -33,15 +33,16 @@ Backends:
 - ``"auto"`` (default): per call, the kernel when the input lies on a CUDA
   device, the chain is eligible and its shape lies inside the kernel's
   region measured on the H100 (``regions.py``: per pattern the n_fft range
-  and front ends where the kernel won), else the eager formulation, which
-  was measured faster at the shapes the kernel covers outside the region
-  (n_fft 64 for the cosine-sum magnitude, Polar and MFCC; 768 on the full-K
-  magnitude and Polar product route).
+  and the routes where the kernel won: the FFT route at a power of two, the
+  smooth route of the log-mel and MFCC kernels at an even 5-smooth n_fft,
+  the product or factored front end elsewhere), else the eager
+  formulation, which was measured faster at the shapes the kernel covers
+  outside the region.
 
 ``fuse_fit`` is the same story for the *fit* pass: the kernel's statistics
 epilogue reduces the normalization statistics (of both channels, for the
 representation pattern) without writing the spectrogram; under ``auto`` a
-window without taps takes it only inside its measured region
+window without taps takes it only inside its family's measured region
 (``regions.fit_fullk_region_ok``).
 
 ``mesh=`` (a ``DeviceMesh``, ``parallel/mesh.py``) partitions both over the
@@ -422,10 +423,11 @@ def _kernel_preferred(chain: AudioTransform) -> bool:
     return m is not None and _repr_region(m)
 
 
-def _fit_region(stft_t) -> bool:
+def _fit_region(stft_t, two_channel: bool = False) -> bool:
     """A window with taps fits on the kernel wherever it is available, one
-    without (F, H full-K) inside its measured region."""
-    return stft_t._window_taps is not None or fit_fullk_region_ok(stft_t.n_fft)
+    without inside its family's measured region (F's, or with
+    ``two_channel`` H full-K's: F has the smooth route, H does not)."""
+    return stft_t._window_taps is not None or fit_fullk_region_ok(stft_t.n_fft, two_channel)
 
 
 def fuse_forward(
@@ -690,7 +692,7 @@ def _fuse_fit_repr(chain, backend, mesh, shard_axis, mono, stft_t, rep, second):
     if not (_fittable(rep.magnitude.norm) or _fittable(rep.phase.norm)):
         return _whole_fit(chain, mesh)  # both channels unnormalized: nothing to fit
     contrast, _, weighted = _repr_config(rep, second)
-    eager = backend == "auto" and not _fit_region(stft_t)
+    eager = backend == "auto" and not _fit_region(stft_t, two_channel=True)
 
     def stats(xl: torch.Tensor) -> dict:
         y = mono.forward(_from_pcm_for_mono(mono, xl)) if mono is not None else xl

@@ -12,11 +12,13 @@ session encode (R, the magnitude encode of N) and the full-K melspec and
 representation front ends (E, F, G, H) run the forward; K's synthesis the
 inverse; the full-K Griffin-Lim step (J) both; the streaming roundtrips (L,
 M) both in one team (``frames_roundtrip``), wherever :func:`fft_covers`
-takes ``n_fft``.  R, N's encode, L, M and the streaming decodes (P, S, O's
-projection synthesis) also take the mixed-radix schedule wherever
-:func:`fft_covers_smooth` takes ``n_fft`` (even, ``2^a 3^b 5^c``, 64 to 4096,
-not a power of two: 1200, 960, 768, 400, 1920, ...); every other ``n_fft``
-keeps the window-folded products of ``dft_common.cuh`` and ``synth_ola.cuh``.
+takes ``n_fft``.  R, N's encode, L, M, the streaming decodes (P, S, O's
+projection synthesis) and the full-K melspec forward and fit (E, F, and so
+A and B under the taps' own window) also take the mixed-radix schedule
+wherever :func:`fft_covers_smooth` takes ``n_fft`` (even, ``2^a 3^b 5^c``, 64
+to 4096, not a power of two: 1200, 960, 768, 400, 1920, ...); every other
+``n_fft`` keeps the window-folded products of ``dft_common.cuh`` and
+``synth_ola.cuh`` (and A and B their factored front end).
 The rules read ``n_fft`` alone.
 
 The schedule, which :func:`frames_rfft_reference` and
@@ -82,8 +84,10 @@ TWO_BLOCKS_SMEM = SM_SMEM // 2 - 1024   # a block's share when two run on one SM
 
 def fft_covers(n_fft: int) -> bool:
     """Whether the FFT route takes ``n_fft``: a power of two from 64 to 4096.
-    R, E, F, G, H, J, K's synthesis, L and M run the window-folded products
-    for every other ``n_fft``."""
+    Elsewhere G, H, J, K's synthesis, C, D, I and O's polish run their
+    product routes; R, L, M, the decodes, E and F (with A and B) take the
+    smooth route where :func:`fft_covers_smooth` does, and the products
+    (A and B the factored front end) at every other ``n_fft``."""
     n = int(n_fft)
     return FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0
 
@@ -91,9 +95,11 @@ def fft_covers(n_fft: int) -> bool:
 def fft_covers_smooth(n_fft: int) -> bool:
     """Whether the mixed-radix route takes ``n_fft``: even, ``2^a 3^b 5^c``
     (``a >= 1``), from 64 to 4096, and not a power of two (those keep
-    :func:`fft_covers`'s schedule).  Only R, the magnitude encode, L, M and
-    the streaming decodes (P, S, O's projection synthesis) take it; every
-    other kernel runs its product route there."""
+    :func:`fft_covers`'s schedule).  R, the magnitude encode, L, M, the
+    streaming decodes (P, S, O's projection synthesis) and the full-K
+    melspec forward and fit E and F (so A and B, under the taps' own
+    window) take it; every other kernel (G, H, J, K's synthesis, C, D, I,
+    O's polish and analysis) runs its product route there."""
     n = int(n_fft)
     if not FFT_MIN <= n <= FFT_MAX or n % 2 or n & (n - 1) == 0:
         return False

@@ -15,16 +15,21 @@ Two front ends share one epilogue.  With ``taps`` (a cosine-sum window) the
 chunk-factored one runs; with ``taps=None`` and a ``window`` (any window, the
 DGT's gaussian for one) the full-K one, where frame ``t`` is the slice ``row[t
 hop : t hop + n_fft]`` of the same padded rows.  The full-K front end of
-``fused_melspec`` and ``fused_melspec_stats`` (kernels E and F) has two
-routes, picked by ``n_fft`` alone (``frames_fft.fft_covers``): where it is a
-power of two from 64 to 4096 the FFT route (``csrc/fft_smem.cuh:frames_rfft``,
-the window and a twiddle table, no basis; plain version
-``frames_fft.frames_rfft_reference``), elsewhere the product route (a basis of
-``n_fft x 2F`` with the window folded in, ``overlap`` times the multiply-adds
-of the factored form).  The forward and the statistics with ``taps`` (kernels
-A and B) take the same FFT route by the same rule, under the taps' own window
-(``frames_fft.taps_window``): E's and F's instances compute A's and B's
-functions for any window.  Every other ``n_fft`` keeps the factored front end
+``fused_melspec`` and ``fused_melspec_stats`` (kernels E and F) has three
+routes, picked by ``n_fft`` alone (:func:`melspec_route`): where it is a
+power of two from 64 to 4096 (``frames_fft.fft_covers``) the FFT route
+(``csrc/fft_smem.cuh:frames_rfft``, the window and a twiddle table, no basis;
+plain version ``frames_fft.frames_rfft_reference``); where it is even and
+``2^a 3^b 5^c`` from 64 to 4096 and no power of two
+(``frames_fft.fft_covers_smooth``: 768, 640, 1536, 1920, ...) the smooth
+route (the mixed-radix ``frames_rfft<true>``; plain version
+``frames_rfft_reference(..., smooth=True)``); elsewhere the product route (a
+basis of ``n_fft x 2F`` with the window folded in, ``overlap`` times the
+multiply-adds of the factored form).  The forward and the statistics with
+``taps`` (kernels A and B) take the same FFT and smooth routes by the same
+rule, under the taps' own window (``frames_fft.taps_window``): E's and F's
+instances compute A's and B's functions for any window.  Every other
+``n_fft`` (896 = 2^7 7, 1344, ...) keeps the factored front end
 (:func:`_kernel_plan`).  All need ``hop | n_fft``.
 
 ``fused_spectral_repr`` and ``fused_repr_stats`` are the two-channel twins
@@ -37,8 +42,9 @@ halo frame and its FFT partner), so that every frame goes through the FFT
 with the partner it has in the plain version's whole-clip schedule.  With
 ``taps`` the forward (kernel G) and the statistics (kernel H) take G and H
 full-K's FFT route under the taps' own window where ``fft_covers(n_fft)``,
-the factored front end elsewhere: A, B, G and H share one rule
-(:func:`_repr_plan`).  ``routes`` counts the launches by route.
+the factored front end elsewhere (:func:`_repr_plan`): the representation
+kernels have no smooth route, so their plain versions keep the factored and
+product front ends at 768.  ``routes`` counts the launches by route.
 
 ``melspec_forward_stage`` runs the factored forward cut after one of its
 stages (``STAGES``) on prepared rows: the kernel of the floor sweep
@@ -72,10 +78,14 @@ from ..fft import (
 from . import _build
 from .frames_fft import (
     MAX_SMEM,
+    SM_SMEM,
     TWO_BLOCKS_SMEM,
     fft_covers,
+    fft_covers_smooth,
     fft_max_teams,
     fft_smem_floats,
+    fft_smooth_max_teams,
+    fft_smooth_smem_floats,
     fft_twiddles,
     frames_rfft_reference,
     taps_window,
@@ -87,6 +97,7 @@ __all__ = [
     "fused_melspec_stats",
     "fused_melspec_stats_reference",
     "fused_melspec_available",
+    "melspec_route",
     "fused_melspec_op",
     "fused_spectral_repr",
     "fused_spectral_repr_reference",
@@ -113,15 +124,17 @@ launches: Dict[str, int] = {
     "fused_repr_stats": 0, "fused_repr_stats_fullk": 0,
     "melspec_stage": 0,
 }
-#: the launches by route, ``"<kernel>:fft"`` / ``"<kernel>:product"`` /
-#: ``"<kernel>:factored"`` (each also counts in ``launches``): the full-K
-#: kernels, and A, B, G and H with taps (the FFT route where
-#: ``fft_covers(n_fft)``, the factored front end elsewhere)
+#: the launches by route, ``"<kernel>:fft"`` / ``"<kernel>:smooth"`` /
+#: ``"<kernel>:product"`` / ``"<kernel>:factored"`` (each also counts in
+#: ``launches``): the full-K kernels, and A, B, G and H with taps (the FFT
+#: route where ``fft_covers(n_fft)``, for A, B, E and F the smooth route
+#: where ``fft_covers_smooth(n_fft)``, the factored front end elsewhere)
 routes: Dict[str, int] = {
-    "fused_melspec_fullk:fft": 0, "fused_melspec_fullk:product": 0,
-    "fused_melspec_stats_fullk:fft": 0, "fused_melspec_stats_fullk:product": 0,
-    "fused_melspec:fft": 0, "fused_melspec:factored": 0,
-    "fused_melspec_stats:fft": 0, "fused_melspec_stats:factored": 0,
+    "fused_melspec_fullk:fft": 0, "fused_melspec_fullk:smooth": 0, "fused_melspec_fullk:product": 0,
+    "fused_melspec_stats_fullk:fft": 0, "fused_melspec_stats_fullk:smooth": 0,
+    "fused_melspec_stats_fullk:product": 0,
+    "fused_melspec:fft": 0, "fused_melspec:smooth": 0, "fused_melspec:factored": 0,
+    "fused_melspec_stats:fft": 0, "fused_melspec_stats:smooth": 0, "fused_melspec_stats:factored": 0,
     "fused_spectral_repr:fft": 0, "fused_spectral_repr:factored": 0,
     "fused_repr_stats:fft": 0, "fused_repr_stats:factored": 0,
     "fused_spectral_repr_fullk:fft": 0, "fused_spectral_repr_fullk:product": 0,
@@ -149,10 +162,17 @@ def _smem_bytes(tile_t: int, hop: int, overlap: int, n_bins: int) -> int:
     return 4 * ((tile_t + overlap - 1) * hop + tile_t * n_bins + work)
 
 
+def _fft_area_floats(n_fft: int, teams: int) -> int:
+    """``frames_rfft``'s area on the route ``n_fft`` takes (``csrc/
+    fft_smem.cuh:fft_area_floats``): the FFT route's, else the smooth one's."""
+    return fft_smem_floats(n_fft, teams) if fft_covers(n_fft) else fft_smooth_smem_floats(n_fft, teams)
+
+
 def _fft_smem_bytes(tile_t: int, hop: int, overlap: int, n_bins: int, teams: int) -> int:
-    """Shared memory of one block of E or F on the FFT route: the same rows
-    and magnitudes, then ``frames_rfft``'s window, twiddles and buffers."""
-    return 4 * ((tile_t + overlap - 1) * hop + tile_t * n_bins + fft_smem_floats(overlap * hop, teams))
+    """Shared memory of one block of E or F on the FFT or the smooth route:
+    the same rows and magnitudes, then ``frames_rfft``'s window, twiddles and
+    buffers on the route ``overlap * hop`` takes."""
+    return 4 * ((tile_t + overlap - 1) * hop + tile_t * n_bins + _fft_area_floats(overlap * hop, teams))
 
 
 def _pick_tile(hop: int, overlap: int, n_bins: int) -> Optional[int]:
@@ -181,6 +201,43 @@ def _pick_fft_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
                     return tile_t, teams
                 teams //= 2
     return None
+
+
+def _pick_smooth_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
+    """``(tile_t, teams)`` of E and F (and A and B) on the smooth route:
+    among the frame tiles (``TILES``) and the powers of two of FFTs side by
+    side up to ``fft_smooth_max_teams(n_fft)`` whose block fits shared
+    memory, the most tile frames per round of pair FFTs times the blocks an
+    SM holds (its shared memory at a block's bytes, 1 KB reserved each, at
+    most two: the instances' 128 registers), ties to the wider tile, then
+    to fewer FFTs; or None.  768/256 and 768/192: 16 frames of 4 FFTs;
+    640/160 32 of 4; 1536/384 8 of 2 (each the fastest of a sweep of every
+    plan on an H100, ``chip_smoke.py``'s ``smooth plan sweep``); 1920/480 16
+    of 2, 7 % over the fastest (8 of 1)."""
+    overlap, n_bins = n_fft // hop, n_fft // 2 + 1
+    best, score = None, 0.0
+    for tile_t in TILES:
+        teams = 1
+        while teams <= fft_smooth_max_teams(n_fft):
+            b = _fft_smem_bytes(tile_t, hop, overlap, n_bins, teams)
+            if b <= MAX_SMEM:
+                rounds = -(-(tile_t // 2) // teams)
+                sc = min(2, SM_SMEM // (b + 1024)) * tile_t / rounds
+                if sc > score:
+                    best, score = (tile_t, teams), sc
+            teams *= 2
+    return best
+
+
+def melspec_route(n_fft: int) -> str:
+    """The route of E and F (and of A and B, under the taps' own window) at
+    ``n_fft``: ``"fft"`` where ``fft_covers`` (a power of two from 64 to
+    4096), ``"smooth"`` where ``fft_covers_smooth`` (even, ``2^a 3^b 5^c``,
+    64 to 4096, no power of two), else ``"other"`` (E and F's product, A and
+    B's factored front end)."""
+    if fft_covers(n_fft):
+        return "fft"
+    return "smooth" if fft_covers_smooth(n_fft) else "other"
 
 
 def fused_melspec_available(n_fft: int, hop_length: int, taps) -> bool:
@@ -322,30 +379,36 @@ def _fullk_basis(window: torch.Tensor, n_fft: int) -> Tuple[torch.Tensor, torch.
     return (w * C).contiguous(), (w * S).contiguous()
 
 
-def _fullk_spectrum(x, n_fft, hop, center, window):
+def _fullk_spectrum(x, n_fft, hop, center, window, smooth: bool = False):
     """(re, im) of the windowed STFT, the full-K kernels' front end: frames
     are overlapping slices of the prepared rows.  Where ``fft_covers(n_fft)``
-    the FFT route's schedule over the whole clip (``frames_rfft_reference``);
-    otherwise the window lies in the basis."""
+    the FFT route's schedule over the whole clip (``frames_rfft_reference``:
+    frames paired ``(2j, 2j + 1)``, as the kernels' even tiles pair them);
+    with ``smooth`` where ``fft_covers_smooth(n_fft)`` the smooth route's
+    (E and F have it, G and H do not); otherwise the window lies in the
+    basis."""
     rows, T, _ = _prepare_rows(x, n_fft, hop, center)
     flat = _rows_to_float(rows).reshape(rows.shape[0], -1)
     frames = flat.unfold(-1, n_fft, hop)[:, :T]
     if fft_covers(n_fft):
         return frames_rfft_reference(frames, window.to(x.device))
+    if smooth and fft_covers_smooth(n_fft):
+        return frames_rfft_reference(frames, window.to(x.device), smooth=True)
     WC, WS = _fullk_basis(window.to(x.device), n_fft)
     return torch.matmul(frames, WC), torch.matmul(frames, WS)
 
 
-def _spectrum(x, n_fft, hop, center, taps, window):
+def _spectrum(x, n_fft, hop, center, taps, window, smooth: bool = False):
     """(re, im) of the front end and route the kernels take: the full-K one
-    on its route without ``taps``; with them, where ``fft_covers(n_fft)``,
-    the FFT route's schedule under the taps' own window, else the factored
-    front end."""
+    on its route without ``taps``; with them, where ``fft_covers(n_fft)`` (or
+    with ``smooth``, the melspec family's flag, where
+    ``fft_covers_smooth(n_fft)``), the FFT (smooth) route's schedule under
+    the taps' own window, else the factored front end."""
     if taps is None:
-        return _fullk_spectrum(x, n_fft, hop, center, window)
-    if fft_covers(n_fft):
+        return _fullk_spectrum(x, n_fft, hop, center, window, smooth)
+    if fft_covers(n_fft) or (smooth and fft_covers_smooth(n_fft)):
         (w,) = _tables(taps_window, x.device, tuple(float(t) for t in taps), n_fft)
-        return _fullk_spectrum(x, n_fft, hop, center, w)
+        return _fullk_spectrum(x, n_fft, hop, center, w, smooth)
     return _factored_spectrum(x, n_fft, hop, center, taps)
 
 
@@ -389,10 +452,11 @@ def fused_melspec_reference(
     window: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_melspec` (same arguments), on the
-    route the kernel takes (with ``taps`` the FFT route's schedule under the
-    taps' own window where ``fft_covers(n_fft)``)."""
+    route the kernel takes (:func:`melspec_route`: the FFT or the smooth
+    route's schedule over the whole clip, with ``taps`` under the taps' own
+    window; the product or the factored front end elsewhere)."""
     _check_input(x, n_fft, hop_length, taps, window)
-    re, im = _spectrum(x, n_fft, hop_length, center, taps, window)
+    re, im = _spectrum(x, n_fft, hop_length, center, taps, window, smooth=True)
     return _melspec_epilogue(re, im, mel_bank, offset, scale, contrast, power, out_dtype)
 
 
@@ -418,11 +482,10 @@ def fused_melspec_stats_reference(
     window: Optional[torch.Tensor] = None,
 ) -> dict:
     """Plain PyTorch version of :func:`fused_melspec_stats`, on the route the
-    kernel takes (with ``taps`` the FFT route's schedule under the taps' own
-    window where ``fft_covers(n_fft)``)."""
+    kernel takes (as :func:`fused_melspec_reference`'s)."""
     x = x.reshape((-1, x.shape[-1]))
     _check_input(x, n_fft, hop_length, taps, window)
-    re, im = _spectrum(x, n_fft, hop_length, center, taps, window)
+    re, im = _spectrum(x, n_fft, hop_length, center, taps, window, smooth=True)
     v = _apply_contrast(torch.sqrt(re * re + im * im), contrast)
     vd = v.double()
     return {
@@ -460,11 +523,13 @@ def _mel_band(bank: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _front_end(device, n_fft, hop, taps, window, *, fft: bool):
     """What the entry points take for the front end: the two basis tensors
-    (None on the FFT route), the twiddle pointers (None for full-K), the taps
-    array, ``P`` (-1 selects a full-K front end) and the FFT route's window
-    and twiddle table (None elsewhere).  ``fft``: the launch takes the FFT
-    route, under ``window``, or with ``taps`` under the taps' own window
-    (``taps_window``, float64 rounded once)."""
+    (None on the FFT and smooth routes), the twiddle pointers (None for
+    full-K), the taps array, ``P`` (-1 selects a full-K front end) and the
+    FFT route's window and twiddle table (None elsewhere).  ``fft``: the
+    launch takes the FFT or the smooth route (one table: the smooth stages
+    read its first ``fft_smooth_table(n_fft)`` entries), under ``window``, or
+    with ``taps`` under the taps' own window (``taps_window``, float64
+    rounded once)."""
     if fft:
         if taps is None:
             win = window.to(device=device, dtype=torch.float32).contiguous()
@@ -491,16 +556,20 @@ def _stream() -> ctypes.c_void_p:
 
 def _kernel_plan(n_fft, hop, taps) -> Tuple[int, int]:
     """``(tile_t, teams)`` of the forward (A, E) and the statistics (B, F)
-    for this shape, ``teams = 0`` off the FFT route, or raise: the kernels
-    never give way.  The FFT route takes every launch where
-    ``fft_covers(n_fft)``, with taps (under their own window) or without."""
-    if fft_covers(n_fft) and fused_melspec_available(n_fft, hop, taps):
-        plan = _pick_fft_plan(n_fft, hop)
+    for this shape, ``teams = 0`` off the FFT and smooth routes, or raise:
+    the kernels never give way.  The route is :func:`melspec_route`'s, with
+    taps (under their own window) or without: the FFT route
+    (:func:`_pick_fft_plan`) where ``fft_covers(n_fft)``, the smooth route
+    (:func:`_pick_smooth_plan`) where ``fft_covers_smooth(n_fft)``, the
+    factored or the product front end elsewhere."""
+    route = melspec_route(n_fft)
+    if route != "other" and fused_melspec_available(n_fft, hop, taps):
+        plan = _pick_fft_plan(n_fft, hop) if route == "fft" else _pick_smooth_plan(n_fft, hop)
         if plan is None:
             raise NotImplementedError(
-                "the CUDA melspec kernels' FFT route holds one block's tile in shared "
+                "the CUDA melspec kernels' %s route holds one block's tile in shared "
                 "memory, which n_fft=%d hop=%d exceeds (ROADMAP Queue 2, K1); use "
-                "backend='eager'" % (n_fft, hop)
+                "backend='eager'" % ("FFT" if route == "fft" else "smooth", n_fft, hop)
             )
         return plan
     return _kernel_tile(n_fft, hop, taps), 0
@@ -604,7 +673,7 @@ def fused_melspec(
         )
     name = "fused_melspec" if taps is not None else "fused_melspec_fullk"
     _build.check(code, name)
-    _count(name, taps, teams)
+    _count(name, taps, teams, n_fft)
     return out
 
 
@@ -666,11 +735,16 @@ def fused_melspec_op(
     )
 
 
-def _count(name: str, taps, teams: int) -> None:
-    """One launch of ``name`` and its route: ``fft`` (``teams > 0``), else
-    ``product`` without taps and ``factored`` with them."""
+def _count(name: str, taps, teams: int, n_fft: int) -> None:
+    """One launch of ``name`` and its route: ``fft`` (``teams > 0`` at a
+    power of two) or ``smooth`` (``teams > 0`` elsewhere), else ``product``
+    without taps and ``factored`` with them."""
     launches[name] += 1
-    routes[name + (":fft" if teams else ":product" if taps is None else ":factored")] += 1
+    if teams:
+        route = "fft" if fft_covers(n_fft) else "smooth"
+    else:
+        route = "product" if taps is None else "factored"
+    routes[name + ":" + route] += 1
 
 
 def fused_melspec_stats(
@@ -719,7 +793,7 @@ def fused_melspec_stats(
         )
     name = "fused_melspec_stats" if taps is not None else "fused_melspec_stats_fullk"
     _build.check(code, name)
-    _count(name, taps, teams)
+    _count(name, taps, teams, n_fft)
     return {
         "sum": stats[0].sum(),
         "sumsq": stats[1].sum(),
@@ -915,7 +989,7 @@ def _launch_repr(x, n_fft, hop, second, taps, window, contrast, weighted, center
         )
     name = ("fused_repr_stats" if stats else "fused_spectral_repr") + ("" if taps is not None else "_fullk")
     _build.check(code, name)
-    _count(name, taps, teams)
+    _count(name, taps, teams, n_fft)
     return (stats_t, B * T * F) if stats else (out1, out2)
 
 

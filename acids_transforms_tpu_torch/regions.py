@@ -8,13 +8,20 @@ this module, measured on the H100 by ``tools/sweep_regions.py``; each value
 carries a ``_why`` with the card, its power limit and the ratios measured.
 None comes from the JAX package's table, whose values are TPU crossovers.
 
-A shape region is ``n_fft_min <= n_fft <= n_fft_max``, and with
-``fft_route_only`` the kernel's shared-memory FFT route only (``n_fft`` a
-power of two, 64-4096): at any other n_fft the kernels take their product
-or factored front end, which the sweep measured slower than the eager
-route.  A region has no overlap bound: the kernels' own gate (2 <= n_fft /
-hop <= 8) is the whole range, and the kernel won at each overlap measured,
-so the functions take ``hop_length`` for the JAX package's signatures only.
+A shape region is ``n_fft_min <= n_fft <= n_fft_max`` and the list
+``routes`` of the kernel routes it admits (:func:`kernel_route`): ``"fft"``
+(the shared-memory FFT, ``n_fft`` a power of two, 64-4096), ``"smooth"`` (the
+mixed-radix FFT at an even 5-smooth ``n_fft`` that is no power of two: the
+log-mel and MFCC forwards and the log-mel fit, kernels A, B, E and F, have
+it; the representation kernels G and H do not) and ``"product"`` /
+``"factored"`` (the full-K and the cosine-sum front ends everywhere else).
+A route is listed only where every point of it the sweep measured won
+against the eager route: 768/192 measures the smooth route of A, B, E, F
+and the factored and product routes of G and H, 896/224 (2^7 7) the
+factored and product routes of all.  A region has no overlap bound: the
+kernels' own gate (2 <= n_fft / hop <= 8) is the whole range, and the kernel
+won at each overlap measured, so the functions take ``hop_length`` for the
+JAX package's signatures only.
 A region that is None holds no shape.  The tests
 (``tests/test_torch_regions.py``) hold the planners' live decisions against
 stated expectations.
@@ -27,9 +34,11 @@ from functools import lru_cache
 from typing import Optional
 
 from .ops.cuda.frames_fft import fft_covers
+from .ops.cuda.spectral import melspec_route
 
 __all__ = [
     "table",
+    "kernel_route",
     "melspec_region_ok",
     "repr_region_ok",
     "mfcc_region_ok",
@@ -48,43 +57,56 @@ def table() -> dict:
         return json.load(f)
 
 
-def _in_shape_region(r: Optional[dict], n_fft: int) -> bool:
+def kernel_route(n_fft: int, has_taps: bool, smooth: bool) -> str:
+    """The route a kernel takes at ``n_fft``: ``"fft"`` where ``fft_covers``;
+    for a kernel that has the smooth route (``smooth``: A, B, E, F)
+    ``ops/cuda/spectral.py:melspec_route``'s decision; else ``"factored"``
+    with cosine-sum taps and ``"product"`` without."""
+    route = melspec_route(n_fft) if smooth else ("fft" if fft_covers(n_fft) else "other")
+    if route != "other":
+        return route
+    return "factored" if has_taps else "product"
+
+
+def _in_shape_region(r: Optional[dict], n_fft: int, route: str) -> bool:
     if r is None:
         return False
-    if r["fft_route_only"] and not fft_covers(n_fft):
-        return False
-    return r["n_fft_min"] <= n_fft <= r["n_fft_max"]
+    return route in r["routes"] and r["n_fft_min"] <= n_fft <= r["n_fft_max"]
 
 
 def melspec_region_ok(n_fft: int, hop_length: int, has_taps: bool) -> bool:
     """The fused log-mel / magnitude forward: A with cosine-sum taps, E for
     any other window (the DGT's gaussian)."""
     t = table()["fuse_forward"]
-    return _in_shape_region(t["melspec_taps" if has_taps else "melspec_fullk"], n_fft)
+    return _in_shape_region(t["melspec_taps" if has_taps else "melspec_fullk"], n_fft,
+                            kernel_route(n_fft, has_taps, smooth=True))
 
 
 def repr_region_ok(n_fft: int, hop_length: int, has_taps: bool, second: str) -> bool:
     """The two-channel forward G: PolarIF (``second == "if"``) has its own
     region, Polar and Cartesian share one; each with taps and full-K."""
     r = table()["fuse_forward"]["repr_if" if second == "if" else "repr_phase_imag"]
-    return _in_shape_region(r["taps" if has_taps else "fullk"], n_fft)
+    return _in_shape_region(r["taps" if has_taps else "fullk"], n_fft,
+                            kernel_route(n_fft, has_taps, smooth=False))
 
 
 def mfcc_region_ok(n_fft: int, hop_length: int) -> bool:
-    return _in_shape_region(table()["fuse_forward"]["mfcc"], n_fft)
+    return _in_shape_region(table()["fuse_forward"]["mfcc"], n_fft, kernel_route(n_fft, True, smooth=True))
 
 
 def fit_fullk_max_n_fft() -> int:
     return int(table()["fuse_fit"]["fullk_n_fft_max"])
 
 
-def fit_fullk_region_ok(n_fft: int) -> bool:
-    """The one-pass fit of a window without taps (F, H full-K) up to its
-    measured largest n_fft, on the FFT route only where the table says so."""
+def fit_fullk_region_ok(n_fft: int, two_channel: bool = False) -> bool:
+    """The one-pass fit of a window without taps up to its measured largest
+    n_fft, on the routes its family won: the magnitude's (F: ``"fft"``,
+    ``"smooth"``, ``"product"``) or, with ``two_channel``, the
+    representations' (H full-K: ``"fft"``, ``"product"``)."""
     t = table()["fuse_fit"]
-    if t["fullk_fft_route_only"] and not fft_covers(n_fft):
-        return False
-    return n_fft <= fit_fullk_max_n_fft()
+    routes = t["repr_fullk_routes" if two_channel else "melspec_fullk_routes"]
+    return (kernel_route(n_fft, False, smooth=not two_channel) in routes
+            and n_fft <= fit_fullk_max_n_fft())
 
 
 def angle_cap_bytes() -> int:

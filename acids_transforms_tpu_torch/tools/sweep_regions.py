@@ -14,16 +14,19 @@ measurement).  The parts:
   against ``backend="eager"`` (what ``auto`` runs outside the region), the
   card's time per call (CUDA events over 3 calls back to back, median of
   ``--runs`` runs), on ``--batch`` stereo clips of ``--seconds`` s at 44.1
-  kHz made on the card from ``--seed``, at n_fft 128, 256, 512, 768, 1024,
-  2048 and 4096 with overlap 4, at 64 with overlap 2 (the kernels take a hop
-  that is a multiple of 32 only) and at 1024 with overlap 2 and 8.  The
-  patterns:
+  kHz made on the card from ``--seed``, at n_fft 128, 256, 512, 768, 896,
+  1024, 2048 and 4096 with overlap 4, at 64 with overlap 2 (the kernels take
+  a hop that is a multiple of 32 only) and at 1024 with overlap 2 and 8.
+  768 = 2^8 3 measures the smooth route of the log-mel and MFCC kernels (A,
+  E) and the factored and product routes of the representation kernels (G);
+  896 = 2^7 7 the factored and product routes of all.  The patterns:
   ``Mono + STFT(hann) + Magnitude(log1p, mel)`` (melspec_taps), ``Mono +
   DGT + Magnitude(log1p)`` (melspec_fullk), ``Mono + STFT | DGT + PolarIF``
   (repr_if taps / fullk), ``Mono + STFT | DGT + Polar`` (repr_phase_imag
   taps / fullk) and ``Mono + MFCC`` (mfcc).
 * ``fit``: ``fuse_fit(backend="kernel")`` against ``chain.fit`` for the
-  DGT's magnitude and PolarIF chains at the same n_fft (64 to 4096).
+  DGT's magnitude and PolarIF chains (F, H full-K) at the same n_fft (64 to
+  4096, overlap 4 but 64/32).
 * ``stream``: each session route (``backend="fused"``) against the generic
   chunk scan on ``--sessions`` mono sessions of ``--session-seconds`` s of
   ``OverlapAdd + RealtimeSTFT`` at each of :data:`STREAM_SHAPES`: 1024/256
@@ -40,9 +43,12 @@ measurement).  The parts:
   batches, at 1024/256.
 
 The derived table: a shape region per pattern (the measured power-of-two
-n_fft around 1024 where the kernel wins, and ``fft_route_only`` where it
-loses at 768, the one n_fft no power of two); the full-K fit's largest n_fft
-up to which the kernel wins at every measured size; per session mode the
+n_fft around 1024 where the kernel wins, and the routes it admits: ``fft``,
+``smooth`` where the pattern's kernel has that route and won at 768/192,
+``factored`` / ``product`` where it won at every point measuring that route,
+896/224 and for the representations 768/192 too); the full-K fit's largest
+n_fft up to which both fits win at every measured power of two, and per fit
+the routes it admits by the same rule; per session mode the
 largest measured batch up
 to which the route wins at every measured batch of every measured shape
 (None where it wins at all); the angle and frame buffer caps at which a
@@ -73,8 +79,10 @@ import torch
 from .._device import resolve_device
 
 SR = 44100
-SHAPES = [(64, 32), (128, 32), (256, 64), (512, 128), (768, 192), (1024, 256), (2048, 512), (4096, 1024),
-          (1024, 512), (1024, 128)]
+SHAPES = [(64, 32), (128, 32), (256, 64), (512, 128), (768, 192), (896, 224), (1024, 256), (2048, 512),
+          (4096, 1024), (1024, 512), (1024, 128)]
+#: the fit's shapes: overlap 4 (64/32 at overlap 2)
+FIT_SHAPES = SHAPES[:9]
 #: the powers of two the FFT route covers, each measured at overlap 4 but 64
 #: (overlap 2: a hop of 16 is no multiple of 32)
 POW2 = {64: "64/32", 128: "128/32", 256: "256/64", 512: "512/128", 1024: "1024/256", 2048: "2048/512",
@@ -82,6 +90,35 @@ POW2 = {64: "64/32", 128: "128/32", 256: "256/64", 512: "512/128", 1024: "1024/2
 KINDS = ["melspec_taps", "melspec_fullk", "repr_if_taps", "repr_if_fullk", "repr_phase_taps",
          "repr_phase_fullk", "mfcc"]
 FIT_KINDS = ["fit_melspec_fullk", "fit_repr_if_fullk"]
+#: the points that measure each route off a power of two: the kernels of
+#: the log-mel and MFCC patterns (A, B, E, F) take the smooth route at 768
+#: (2^8 3) and their factored / product front end at 896 (2^7 7); those of
+#: the representations (G, H) have no smooth route, so both points measure
+#: their factored / product front end
+SMOOTH_POINTS = {"smooth": ["768/192"], "other": ["896/224"]}
+PLAIN_POINTS = {"other": ["768/192", "896/224"]}
+
+
+def route_points(kind: str) -> Dict[str, List[str]]:
+    """Per route a pattern's kernel takes off a power of two (``smooth``,
+    and ``other``: its factored or product front end), the shapes that
+    measure it."""
+    return SMOOTH_POINTS if kind.startswith(("melspec", "mfcc", "fit_melspec")) else PLAIN_POINTS
+
+
+def other_route(kind: str) -> str:
+    """The name of a pattern's front end at n_fft neither route covers."""
+    return "product" if kind.endswith("fullk") else "factored"
+
+
+def admitted_routes(kind: str, wins: Dict[str, bool]) -> List[str]:
+    """The routes a region of ``kind`` admits: ``fft``, and each other route
+    whose every measured point won (``wins``: shape -> the kernel won)."""
+    out = ["fft"]
+    for route, points in route_points(kind).items():
+        if all(wins[p] for p in points):
+            out.append(other_route(kind) if route == "other" else route)
+    return out
 #: the session sweep's shapes, (n_fft, hop, chunk): 16 frames a chunk each
 STREAM_SHAPES = [(1024, 256, 4096), (1200, 300, 4800)]
 #: the share of the card's memory a session may peak at under ``auto``
@@ -180,7 +217,7 @@ def sweep_fit(att, T, audio, runs: int, log) -> Dict[str, Dict[str, dict]]:
     out: Dict[str, Dict[str, dict]] = {}
     for kind in FIT_KINDS:
         out[kind] = {}
-        for n_fft, hop in SHAPES[:8]:
+        for n_fft, hop in FIT_SHAPES:
             chain = build_chain(T, kind, n_fft, hop, audio.device)
             kfit = att.fuse_fit(chain, backend="kernel")
             k_ms = device_ms(lambda: kfit(audio), runs)
@@ -298,7 +335,7 @@ def _run(values: Dict, keys: List, centre) -> Optional[List]:
     return keys[lo: hi + 1]
 
 
-def shape_region(rows: Dict[str, dict], card: str, what: str) -> Optional[dict]:
+def shape_region(rows: Dict[str, dict], card: str, what: str, kind: str) -> Optional[dict]:
     wins = {k: v["ratio"] < 1.0 for k, v in rows.items()}
     pow2 = sorted(POW2)
     n_run = _run({n: wins[POW2[n]] for n in pow2}, pow2, 1024)
@@ -310,12 +347,20 @@ def shape_region(rows: Dict[str, dict], card: str, what: str) -> Optional[dict]:
     if not (wins["1024/512"] and wins["1024/128"]):
         raise ValueError("%s: the kernel lost at an overlap other than 4, and the table has no "
                          "overlap key: %s" % (what, ratios))
+    routes = admitted_routes(kind, wins)
     return {
-        "_why": why + "; the region holds the winners around 1024/256 (below 1)",
+        "_why": why + "; the region holds the winners around 1024/256 (below 1) on the routes whose every "
+                      "measured point won (%s)" % route_note(kind),
         "n_fft_min": n_run[0],
         "n_fft_max": n_run[-1],
-        "fft_route_only": not wins["768/192"],
+        "routes": routes,
     }
+
+
+def route_note(kind: str) -> str:
+    """Which shape measured which route, for a ``_why``."""
+    return "; ".join("%s: %s" % (other_route(kind) if r == "other" else r, ", ".join(p))
+                     for r, p in route_points(kind).items())
 
 
 _DOC = [
@@ -341,7 +386,7 @@ def fuse_section(fuse: dict, card: str) -> dict:
         "repr_phase_taps": "Mono + STFT(hann) + Polar (Cartesian shares it)",
         "repr_phase_fullk": "Mono + DGT + Polar (Cartesian shares it)", "mfcc": "Mono + MFCC",
     }
-    regions = {k: shape_region(fuse[k], card, what[k]) for k in KINDS}
+    regions = {k: shape_region(fuse[k], card, what[k], k) for k in KINDS}
     return {
         "melspec_taps": regions["melspec_taps"],
         "melspec_fullk": regions["melspec_fullk"],
@@ -352,7 +397,8 @@ def fuse_section(fuse: dict, card: str) -> dict:
 
 
 def fit_section(fit: dict, card: str) -> dict:
-    """The full-K fit: the largest n_fft up to which both fits win."""
+    """The full-K fit: the largest n_fft up to which both fits win, and per
+    fit the routes it admits off a power of two (:func:`admitted_routes`)."""
     pow2 = sorted(POW2)
     both = {n: all(fit[k][POW2[n]]["ratio"] < 1.0 for k in FIT_KINDS) for n in pow2}
     run = _run(both, pow2, 1024)
@@ -360,12 +406,15 @@ def fit_section(fit: dict, card: str) -> dict:
         raise ValueError("the full-K fit lost below 1024, and the table has no key for its smallest n_fft")
     fit_ratios = "; ".join("%s: %s" % (k, ", ".join("%s %.2fx" % (s, v["ratio"]) for s, v in fit[k].items()))
                            for k in FIT_KINDS)
-    fit_768 = all(fit[k]["768/192"]["ratio"] < 1.0 for k in FIT_KINDS)
+    routes = {k: admitted_routes(k, {s: v["ratio"] < 1.0 for s, v in fit[k].items()}) for k in FIT_KINDS}
     return {
         "_why": "%s: fuse_fit(backend='kernel') / chain.fit time per call of the DGT chains (the card's, "
-                "median of the runs) at %s; the largest n_fft up to which both win" % (card, fit_ratios),
+                "median of the runs) at %s; the largest n_fft up to which both win, and per fit the routes "
+                "whose every measured point won (magnitude, F: %s; PolarIF, H full-K: %s)"
+                % (card, fit_ratios, route_note("fit_melspec_fullk"), route_note("fit_repr_if_fullk")),
         "fullk_n_fft_max": run[-1] if run else 0,
-        "fullk_fft_route_only": not fit_768,
+        "melspec_fullk_routes": routes["fit_melspec_fullk"],
+        "repr_fullk_routes": routes["fit_repr_if_fullk"],
     }
 
 

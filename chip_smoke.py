@@ -64,11 +64,11 @@ projection I) and the streaming decodes (P, S, O's projection synthesis)
 have two routes, picked by n_fft alone: a shared-memory FFT
 (``csrc/fft_smem.cuh``: ``frames_rfft`` for the analyses, ``frames_irfft``
 for the syntheses of C, D, I, J, L, M, K, P, S and O) at a power of two
-from 64 to 4096, the window-folded products elsewhere (R, L, M, P, S and
-O's synthesis take a third route, the mixed-radix FFT, at even 5-smooth
-n_fft); so do the log-mel
-forward and fit (A and B: E's and F's FFT instances under the taps' own
-window, the factored front end elsewhere), the representations' forward
+from 64 to 4096, the window-folded products elsewhere (R, L, M, P, S,
+O's synthesis, E and F take a third route, the mixed-radix FFT, at even
+5-smooth n_fft); so do the log-mel
+forward and fit (A and B: E's and F's FFT and smooth instances under the
+taps' own window, the factored front end elsewhere), the representations' forward
 and fit statistics with taps (G and H: G and H full-K's instances under the
 taps' own window), and O's polish
 (``gl_polish_fft_kernel``: every projection of a chunk in one launch, where
@@ -79,25 +79,30 @@ which come out bit-identical; A within 2e-5 and B and H with taps with their
 extrema bit-identical and sums within 1e-5, at every power of two from 64
 under hann, hamming and blackman) and against a float64 oracle at 1024, 512,
 2048 and 4096 (C, D, I, K, G, H, P, S and O's synthesis at every power of
-two from 64), the factored route at 768/192 (A, B, G, H), and the product
-route at 768/256 (E, F, J, K, G, H), 768/192
+two from 64), the factored route at 768/192 (G, H) and 896/224 (A, B), and
+the product route at 768/256 (J, K, G, H), 896/224 (E, F), 768/192
 (C, D, I, K), 8192/2048 (J), 1200/300 (K) and 1344/336 (R, L, M, P, S,
 O's synthesis), and the smooth route of R, L, M, P, S and O's synthesis
 (the mixed-radix FFT) at 1200/300, 960/240, 768/192, 400/100 and 1920/480,
-bit-identical to its plain version; the launch counters' route tally shows
+bit-identical to its plain version, and of E and F (A and B under hann and
+blackman taps) at 768/256, 768/192, 640/160, 384/96, 1536/384, 1920/480 and
+3072/768 (|X| and the extrema bit-identical, the mel product's and the sums'
+order aside); the launch counters' route tally shows
 every main-path launch of the nineteen on the FFT route, and phase 4h
 drives the smooth, product and factored routes through the entry points
 (1200/300 sessions: R, L, M, the magnitude encode and the decodes on the
 smooth route; 1344/336 sessions: R, L, M, the magnitude encode and the
 decodes on the product route; an STFT(768, 192) Griffin-Lim invert, STFT(768, 192)
-log-mel and Polar chains' fit and forward, a DGT(768, 256) chain's fit,
-forward, ``pghi`` and ``pghi_gl``, DGT(768, 256) + PolarIF's fit and
-forward).  Phase
+log-mel (A, B on the smooth route) and Polar chains' fit and forward, a
+DGT(768, 256) chain's fit and forward (E, F on the smooth route), ``pghi``
+and ``pghi_gl``, DGT(768, 256) + PolarIF's fit and forward, the
+STFT(896, 224) log-mel and DGT(896, 224) magnitude chains' fit and forward:
+A, B factored and E, F on the product route, 896 = 2^7 7).  Phase
 6 runs the floor sweep of A's factored design
 (``acids_transforms_tpu_torch.tools.sweep_kernel_floor``: kernel T, A cut
 after each of its stages) at the main path's shape, prints each stage's
 increment beside its own floor, and holds every stage against its plain
-version; at 768/192, where A keeps the factored front end, ``s7_full`` is
+version; at 896/224, where A keeps the factored front end, ``s7_full`` is
 bit-identical to A and, ``_prepare_rows`` included, within 10 % of its
 time (both the card's time a call, the calls queued behind a sleep kernel,
 timed in turns).  Phase 3 also holds the
@@ -114,10 +119,10 @@ prints
   for the function (``bound_ms``: bytes moved once, or the operations an FFT
   formulation needs), and apart from the bound the fp32
   ceiling of the kernel's own design (the product's multiply-adds, or the
-  FFT route's operations, at 67 TFLOP/s); ``front_end`` "fft", "product"
-  or "factored" on the rows of A, B, H, R, the magnitude encode, C, D, E,
-  F, I, J, L, M, K's synthesis, G and H full-K, P, S and O's synthesis, one
-  row a route; A also through its registered operator, row
+  FFT route's operations, at 67 TFLOP/s); ``front_end`` "fft", "smooth",
+  "product" or "factored" on the rows of A, B, H, R, the magnitude encode,
+  C, D, E, F, I, J, L, M, K's synthesis, G and H full-K, P, S and O's
+  synthesis, one row a route; A also through its registered operator, row
   ``fused_melspec_op``, timed in turns with the direct launch),
 * the card's name and power limit as ``nvidia-smi`` gives them,
 * and as the last line ``{"ok": true, "device": {...}}``.
@@ -146,10 +151,79 @@ PEAK_FP32_FLOPS = 67e12        # H100 SXM fp32 outside the tensor cores, data sh
 RT_STEP_CYCLES = 58
 # the same for K's walk: a shared-memory load, one float add, a block barrier
 K_STEP_CYCLES = 54
+# even 5-smooth framings of the log-mel / magnitude kernels' smooth route (A,
+# B, E, F): 2^8 3 at overlap 3 and 4, 2^7 5, 2^7 3, 2^9 3, 2^7 3 5, 2^10 3
+SMOOTH_SHAPES = ((768, 256), (768, 192), (640, 160), (384, 96), (1536, 384), (1920, 480), (3072, 768))
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: the smooth route's plan sweep: the framings it times E and F at
+PLAN_SWEEP_SHAPES = ((768, 256), (768, 192), (640, 160), (1536, 384), (1920, 480))
+
+
+def smooth_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
+    """E and F (full-K, the DGT's gaussian window, log1p) on the smooth route
+    at each of PLAN_SWEEP_SHAPES under every plan the kernels take (frame
+    tile 32, 16, 8 x 1, 2, 4 FFTs side by side, within the route's teams and
+    shared memory), the card's time a call back to back (device_ms); E's
+    output must be bit-identical under every plan (the frame pairs do not
+    depend on it).  Returns per shape the rows, the rule's pick
+    (spectral._kernel_plan) and the fastest plan of E + F."""
+    from acids_transforms_tpu_torch.ops.cuda import frames_fft as ff, spectral
+    from acids_transforms_tpu_torch.ops.windows import gaussian_dgt_window
+
+    rule = spectral._kernel_plan
+    out = {}
+    try:
+        for n_fft, hop in PLAN_SWEEP_SHAPES:
+            w = gaussian_dgt_window(n_fft, device=mono.device)
+            ov, F = n_fft // hop, n_fft // 2 + 1
+            pick = rule(n_fft, hop, None)
+            y_pick = spectral.fused_melspec(mono, n_fft, hop, None, 0.0, 1.0, "log1p", window=w)
+            rows = []
+            for tile_t in spectral.TILES:
+                for teams in (1, 2, 4):
+                    smem = spectral._fft_smem_bytes(tile_t, hop, ov, F, teams)
+                    if teams > ff.fft_smooth_max_teams(n_fft) or smem > ff.MAX_SMEM:
+                        continue
+                    spectral._kernel_plan = lambda *a, p=(tile_t, teams): p
+                    y = spectral.fused_melspec(mono, n_fft, hop, None, 0.0, 1.0, "log1p", window=w)
+                    require(torch.equal(y, y_pick), f"E {n_fft}/{hop}: plan {(tile_t, teams)} changes the output")
+                    e_ms = device_ms(lambda: spectral.fused_melspec(mono, n_fft, hop, None, 0.0, 1.0, "log1p",
+                                                                    window=w), repeats)
+                    f_ms = device_ms(lambda: spectral.fused_melspec_stats(mono, n_fft, hop, "log1p", window=w),
+                                     repeats)
+                    spectral._kernel_plan = rule
+                    rows.append(dict(tile=tile_t, teams=teams, smem_kb=smem / 1024.0,
+                                     blocks=min(2, ff.SM_SMEM // (smem + 1024)), e_ms=e_ms, f_ms=f_ms))
+            best = min(rows, key=lambda r: r["e_ms"] + r["f_ms"])
+            mine = next(r for r in rows if (r["tile"], r["teams"]) == pick)
+            out[f"{n_fft}/{hop}"] = dict(rows=rows, pick=pick, best=(best["tile"], best["teams"]),
+                                         over=(mine["e_ms"] + mine["f_ms"]) / (best["e_ms"] + best["f_ms"]) - 1.0)
+            del y_pick
+    finally:
+        spectral._kernel_plan = rule
+    return out
+
+
+def melspec_smooth_instance(res: dict):
+    """The resources of the two smooth instances phase 5 times (float32
+    rows, float32 out): the forward's and the statistics'."""
+    sm = melspec_smooth_resources(res)
+    fwd = next(v for k, v in sm.items() if "melspec_forward_kernelILb0ELb0ELi3EE" in k)
+    stats = next(v for k, v in sm.items() if "melspec_stats_kernelILb0ELi3EE" in k)
+    return fwd, stats
+
+
+def melspec_smooth_resources(res: dict) -> dict:
+    """The build log's resources (``_build.kernel_resources()``) of the
+    melspec kernels' smooth instances: template argument kFront =
+    kFrontSmooth = 3, ``Li3E`` in the mangled name."""
+    return {k: v for k, v in res.items()
+            if ("melspec_forward_kernel" in k or "melspec_stats_kernel" in k) and "Li3E" in k}
 
 
 def require(cond: bool, what: str) -> None:
@@ -1545,13 +1619,18 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
       1344/336 (2^6 3 7), the complex decode and ``pghi_gl`` among them, run
       R, L, M, the magnitude encode and the decodes on the product route:
       those rows' counts.
-    * E and F on the product route through the entry points: the DGT
+    * E and F on the smooth route through the entry points: the DGT
       magnitude chain at 768/256 (``fuse_fit`` + ``fuse_forward`` on up to 16
       clips), its fit and forward within 1e-5 / 1e-4 of the eager chain's, as
-      phase 4b holds the main shape; its ``pghi_gl`` invert (J) and ``pghi``
-      invert (K's synthesis) converging like the eager routes; G and H
-      full-K through ``DGT(768, 256) + PolarIF``'s fit and forward, the
-      magnitude's fit and channel 1 against the eager chain."""
+      phase 4b holds the main shape; A and B likewise through the
+      STFT(768, 192) log-mel chain; the same two chains at 896/224 (2^7 7)
+      put E and F on the product route and A and B on the factored one.
+      The 768/256 chain's ``pghi_gl`` invert (J) and ``pghi`` invert (K's
+      synthesis) take their product routes, converging like the eager
+      routes; G and H full-K through ``DGT(768, 256) + PolarIF``'s fit and
+      forward (product), G and H with taps through STFT(768, 192) +
+      Polar's (factored), the magnitude's fit and channel 1 against the
+      eager chain."""
     from acids_transforms_tpu_torch import streaming
     from acids_transforms_tpu_torch import transforms as T
     from acids_transforms_tpu_torch.ops.cuda import pghi_kernel as pk
@@ -1800,58 +1879,64 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
             "STFT(768, 192) Griffin-Lim: the product route converges worse than the eager loop")
     del mag_g, rec_g, rec_ge
 
-    # E and F on the product route: n_fft 768 is no power of two
+    # A, B, E and F through the entry points: the DGT magnitude chain's and
+    # the STFT log-mel chain's fit and forward at 768 (2^8 3: the smooth
+    # route) and at 896 (2^7 7: E and F on the product route, A and B on the
+    # factored one), each against the eager chain.  backend="kernel" forces
+    # the kernels: under auto regions.py admits the smooth route at 768 and
+    # A's and B's factored route at 896, and refuses E's and F's product
+    # route at 896 (1.39x and 1.14x the eager route on the H100)
     import acids_transforms_tpu_torch as att
+    from acids_transforms_tpu_torch import regions
     from acids_transforms_tpu_torch.ops.cuda import spectral as sp
 
     audio = mono[:16, None].expand(-1, 2, -1).contiguous()      # up to 16 stereo clips
-    d_chain = T.Mono() + T.DGT(n_fft=768, hop_length=256) + T.Magnitude(mode="unipolar", contrast="log1p", mel=False)
-    zero()
-    # n_fft 768 lies outside the measured regions (regions.py): auto runs
-    # the eager route there, so the product and factored routes are forced
-    d_fit = att.fuse_fit(d_chain, backend="kernel")(audio)
-    y_k = att.fuse_forward(d_fit, backend="kernel")(audio)
-    torch.cuda.synchronize()
-    got = {k: v for k, v in sp.routes.items() if v}
-    log(f"  DGT(768, 256) magnitude chain, fit + forward on {tuple(audio.shape)}: launches "
-        f"{ {k: v for k, v in sp.launches.items() if v} }, routes {got}")
-    require(got == {"fused_melspec_fullk:product": 1, "fused_melspec_stats_fullk:product": 1} and launched() == 2,
-            "DGT(768, 256): E and F must launch once each on the product route")
-    for k, v in got.items():
-        counts[k] += v
-    e_fit = d_chain.fit(audio)
-    e_off = abs(d_fit[2].norm.offset.item() - e_fit[2].norm.offset.item()) / abs(e_fit[2].norm.scale.item())
-    e_scl = abs(d_fit[2].norm.scale.item() - e_fit[2].norm.scale.item()) / abs(e_fit[2].norm.scale.item())
-    e_y = rel_err(y_k, d_fit.forward(audio))
-    log(f"    fit offset / scale vs chain.fit: {e_off:.3e} / {e_scl:.3e} of the scale (tol 1e-05); forward vs the "
-        f"eager chain rel {e_y:.3e} (tol 1e-04)")
-    require(torch.isfinite(y_k).all().item() and e_off <= 1e-5 and e_scl <= 1e-5 and e_y <= 1e-4,
-            "DGT(768, 256): the product route differs from the eager chain")
-    # A and B on the factored route: the fit and forward of the log-mel chain
-    # at STFT(768, 192) (n_fft no power of two; the main path's take the FFT
-    # route), and H and G through STFT(768, 192) + Polar's fit and forward
-    b_chain = T.Mono() + T.STFT(n_fft=768, hop_length=192) + T.Magnitude(mode="unipolar", contrast="log1p",
-                                                                        mel=True, n_fft=768)
-    zero()
-    b_fit = att.fuse_fit(b_chain, backend="kernel")(audio)
-    y_b = att.fuse_forward(b_fit, backend="kernel")(audio)
-    torch.cuda.synchronize()
-    got = {k: v for k, v in sp.routes.items() if v}
-    log(f"  STFT(768, 192) log-mel chain, fit + forward on {tuple(audio.shape)}: launches "
-        f"{ {k: v for k, v in sp.launches.items() if v} }, routes {got}")
-    require(got == {"fused_melspec_stats:factored": 1, "fused_melspec:factored": 1} and launched() == 2,
-            "STFT(768, 192): B and A must launch once each on the factored route")
-    for k, v in got.items():
-        counts[k] += v
-    e_fit = b_chain.fit(audio)
-    e_off = abs(b_fit[2].norm.offset.item() - e_fit[2].norm.offset.item()) / abs(e_fit[2].norm.scale.item())
-    e_scl = abs(b_fit[2].norm.scale.item() - e_fit[2].norm.scale.item()) / abs(e_fit[2].norm.scale.item())
-    e_y = rel_err(y_b, b_fit.forward(audio))
-    log(f"    fit offset / scale vs chain.fit: {e_off:.3e} / {e_scl:.3e} of the scale (tol 1e-05); forward vs "
-        f"the eager chain rel {e_y:.3e} (tol 1e-04)")
-    require(torch.isfinite(y_b).all().item() and e_off <= 1e-5 and e_scl <= 1e-5 and e_y <= 1e-4,
-            "STFT(768, 192): A and B's factored route differs from the eager chain")
-    del y_b
+
+    def fit_forward(label, chain, want):
+        """fuse_fit + fuse_forward of `chain` on the kernels, one launch of
+        each kernel of `want` (its route tally), fit and forward against the
+        eager chain; returns the fitted chain and its forward."""
+        zero()
+        fitted = att.fuse_fit(chain, backend="kernel")(audio)
+        y = att.fuse_forward(fitted, backend="kernel")(audio)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in sp.routes.items() if v}
+        auto = {"forward": att.fuse._kernel_preferred(chain), "fit": att.fuse._fit_region(chain[1])}
+        log(f"  {label}, fit + forward on {tuple(audio.shape)}: launches "
+            f"{ {k: v for k, v in sp.launches.items() if v} }, routes {got}; auto would take the kernel: {auto}")
+        require(got == {k: 1 for k in want} and launched() == 2, f"{label}: expected one launch each of {want}")
+        for k, v in got.items():
+            counts[k] += v
+        e_fit = chain.fit(audio)
+        e_off = abs(fitted[2].norm.offset.item() - e_fit[2].norm.offset.item()) / abs(e_fit[2].norm.scale.item())
+        e_scl = abs(fitted[2].norm.scale.item() - e_fit[2].norm.scale.item()) / abs(e_fit[2].norm.scale.item())
+        e_y = rel_err(y, fitted.forward(audio))
+        log(f"    fit offset / scale vs chain.fit: {e_off:.3e} / {e_scl:.3e} of the scale (tol 1e-05); forward vs "
+            f"the eager chain rel {e_y:.3e} (tol 1e-04)")
+        require(torch.isfinite(y).all().item() and e_off <= 1e-5 and e_scl <= 1e-5 and e_y <= 1e-4,
+                f"{label}: the kernels' fit or forward differs from the eager chain")
+        return fitted, y
+
+    def dgt_mag(n_fft, hop):
+        return T.Mono() + T.DGT(n_fft=n_fft, hop_length=hop) + T.Magnitude(mode="unipolar", contrast="log1p",
+                                                                          mel=False)
+
+    def stft_logmel(n_fft, hop):
+        return T.Mono() + T.STFT(n_fft=n_fft, hop_length=hop) + T.Magnitude(mode="unipolar", contrast="log1p",
+                                                                           mel=True, n_fft=n_fft)
+
+    d_fit, y_k = fit_forward("DGT(768, 256) magnitude chain (E, F smooth)", dgt_mag(768, 256),
+                             ("fused_melspec_fullk:smooth", "fused_melspec_stats_fullk:smooth"))
+    require(regions.melspec_region_ok(768, 256, False) == ("smooth" in regions.table()["fuse_forward"][
+        "melspec_fullk"]["routes"]), "regions: E's decision at 768 is not the table's smooth route")
+    fit_forward("DGT(896, 224) magnitude chain (E, F product)", dgt_mag(896, 224),
+                ("fused_melspec_fullk:product", "fused_melspec_stats_fullk:product"))
+    fit_forward("STFT(768, 192) log-mel chain (A, B smooth)", stft_logmel(768, 192),
+                ("fused_melspec:smooth", "fused_melspec_stats:smooth"))
+    fit_forward("STFT(896, 224) log-mel chain (A, B factored)", stft_logmel(896, 224),
+                ("fused_melspec:factored", "fused_melspec_stats:factored"))
+    # H and G with taps on the factored route: STFT(768, 192) + Polar's fit
+    # and forward (G and H have no smooth route)
     p_chain = T.Mono() + T.STFT(n_fft=768, hop_length=192) + T.Polar(
         magnitude_args={"mode": "bipolar", "n_fft": 768})
     zero()
@@ -2219,7 +2304,9 @@ def sinebank_regions_phase(dev, audio, mono, stream, wrappers):
               ("4c DGT + PolarIF", "if", 1024, 256, False), ("4d STFT + Polar", "phase", 1024, 256, True),
               ("4i MFCC", "mfcc", 1024, 256, True), ("4h STFT(768, 192) log-mel", "melspec", 768, 192, True),
               ("4h STFT(768, 192) + Polar", "phase", 768, 192, True), ("4h DGT(768, 256)", "melspec", 768, 256, False),
-              ("4h DGT(768, 256) + PolarIF", "if", 768, 256, False)]
+              ("4h DGT(768, 256) + PolarIF", "if", 768, 256, False),
+              ("4h STFT(896, 224) log-mel", "melspec", 896, 224, True),
+              ("4h DGT(896, 224)", "melspec", 896, 224, False)]
     main_ok = True
     for label, kind, n_fft, hop, taps in shapes:
         if kind == "melspec":
@@ -2228,7 +2315,7 @@ def sinebank_regions_phase(dev, audio, mono, stream, wrappers):
             inside = regions.mfcc_region_ok(n_fft, hop)
         else:
             inside = regions.repr_region_ok(n_fft, hop, taps, kind)
-        fit_inside = taps or regions.fit_fullk_region_ok(n_fft)
+        fit_inside = taps or regions.fit_fullk_region_ok(n_fft, two_channel=kind in ("if", "phase"))
         log(f"    phase {label} {n_fft}/{hop}: auto forward -> {'kernel' if inside else 'eager'}"
             + ("" if kind == "mfcc" else f", fit -> {'kernel' if fit_inside else 'chain.fit'}"))
         if n_fft == N_FFT:
@@ -2262,8 +2349,7 @@ def sinebank_regions_phase(dev, audio, mono, stream, wrappers):
             pts.add(r["n_fft_min"] // 2)
         if r["n_fft_max"] < 4096:
             pts.add(2 * r["n_fft_max"])
-        if r["fft_route_only"]:
-            pts.add(768)
+        pts.update((768, 896))          # the smooth route, and the factored / product one
         for n_fft in sorted(pts):
             hop = 32 if n_fft == 64 else n_fft // 4   # the kernels' hop is a multiple of 32
             if kind == "mfcc":
@@ -2892,9 +2978,9 @@ def sweep_phase(args, dev, mono, bank, off, scl, taps, kernels, bound_of, wrappe
     own additive signal, as the tool has it) and counts its launches, prints
     each stage's increment beside that increment's own floor, holds every
     stage against its plain version on the main path's clips, and, at
-    768/192 where A keeps the factored front end (the main path's A takes the
-    FFT route), ``s7_full`` bit-identical to A and within 10 % of phase 5's
-    row A_factored; appends row T."""
+    896/224 where A keeps the factored front end (the main path's A takes the
+    FFT route, 768 the smooth one), ``s7_full`` bit-identical to A and within
+    10 % of phase 5's row A_factored; appends row T."""
     from acids_transforms_tpu_torch import transforms as T
     from acids_transforms_tpu_torch.ops.cuda import spectral
     from acids_transforms_tpu_torch.ops.fft import taps_for_window
@@ -2982,16 +3068,16 @@ def sweep_phase(args, dev, mono, bank, off, scl, taps, kernels, bound_of, wrappe
     require(e_86 <= 1e-6, "T s8_mel_dense differs from s6_mel_banded")
     del out
 
-    # s7_full is A where A is factored: at 768/192 (phase 5's row A_factored,
+    # s7_full is A where A is factored: at 896/224 (phase 5's row A_factored,
     # the same clips, bank and affine), bit-identical, and its time with
     # _prepare_rows within 10 % of that row's (a fused_melspec call in a run
     # of calls back to back: _prepare_rows, then the kernel; so _prepare_rows
     # then s7_full, timed the same way)
-    n_fft_g, hop_g = 768, 192
+    n_fft_g, hop_g = 896, 224
     taps_g = taps_for_window(get_window("hann", n_fft_g, device=dev))
     bank_g = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=n_fft_g).mel_bank
     tile_g = spectral._kernel_tile(n_fft_g, hop_g, taps_g)
-    require(spectral._kernel_plan(n_fft_g, hop_g, taps_g) == (tile_g, 0), "A must be factored at 768/192")
+    require(spectral._kernel_plan(n_fft_g, hop_g, taps_g) == (tile_g, 0), "A must be factored at 896/224")
     rows_g, n_fr_g, _ = spectral._prepare_rows(mono, n_fft_g, hop_g, True, tile_g)
     shape_g = (n_fft_g, hop_g, n_fr_g, taps_g, bank_g, off, scl)
     spectral.reset_launches()
@@ -3105,6 +3191,15 @@ def main() -> int:
         if any(k in name for k in ("gl_polish", "rt_pghi", "session_encode_kernel", "session_roundtrip_fft")):
             log(f"    {name}: {res['registers']} registers, spill stores / loads {res['spill_stores']} / "
                 f"{res['spill_loads']} B")
+    # E's and F's smooth instances (kFrontSmooth = 3 in the mangled name):
+    # at most 128 registers (two blocks an SM) and no spill
+    smooth_res = melspec_smooth_resources(_build.kernel_resources())
+    for name, res in smooth_res.items():
+        log(f"    {name}: {res['registers']} registers, spill stores / loads {res.get('spill_stores', 0)} / "
+            f"{res.get('spill_loads', 0)} B (the melspec smooth route)")
+    require(len(smooth_res) == 6 and all(r["registers"] <= 128 and not r.get("spill_stores") and not r.get("spill_loads")
+                                         for r in smooth_res.values()),
+            "the melspec smooth instances: six, at most 128 registers, no spill")
     for tile_t in spectral.TILES:
         require(
             lib.att_melspec_smem_bytes(tile_t, HOP, N_FFT // HOP, N_FFT // 2 + 1)
@@ -3196,6 +3291,31 @@ def main() -> int:
                 require(lib.att_session_decode_fft_smem_bytes(rows_d, hop_s, n_fft_s, tm)
                         == ss._decode_fft_smem_bytes(rows_d, hop_s, n_fft_s, tm) <= ff.MAX_SMEM,
                         f"{n_fft_s}/{hop_s}: the decode's smooth shared-memory size: wrapper and source disagree")
+    # E / F (and A / B) on the smooth route: every shape the route takes
+    # (hop a multiple of 32, overlap 2 to 8), the plan's layout and the
+    # other tiles at its team count and one team
+    n_smooth = 0
+    for n_fft_s in [n for n in range(64, 4097, 2) if ff.fft_covers_smooth(n)]:
+        for ov_s in range(2, 9):
+            if n_fft_s % ov_s or (n_fft_s // ov_s) % 32:
+                continue
+            hop_s, f_s = n_fft_s // ov_s, n_fft_s // 2 + 1
+            tile_t, teams = spectral._kernel_plan(n_fft_s, hop_s, None)
+            require(teams > 0 and spectral.melspec_route(n_fft_s) == "smooth"
+                    and spectral._kernel_plan(n_fft_s, hop_s, (0.5, -0.25)) == (tile_t, teams),
+                    f"{n_fft_s}/{hop_s}: E, F, A and B must take the smooth route")
+            for t_s in spectral.TILES:
+                for tm in sorted({1, teams}):
+                    require(lib.att_melspec_fft_smem_bytes(t_s, hop_s, ov_s, f_s, tm)
+                            == spectral._fft_smem_bytes(t_s, hop_s, ov_s, f_s, tm),
+                            f"{n_fft_s}/{hop_s}: the melspec smooth route's shared-memory size: wrapper and "
+                            "source disagree")
+            require(spectral._fft_smem_bytes(tile_t, hop_s, ov_s, f_s, teams) <= ff.MAX_SMEM,
+                    f"{n_fft_s}/{hop_s}: the smooth plan exceeds shared memory")
+            n_smooth += 1
+    log(f"    the melspec smooth route: plans and shared-memory sizes agree at {n_smooth} shapes (768/256 "
+        f"{spectral._kernel_plan(768, 256, None)}, 768/192 {spectral._kernel_plan(768, 192, None)}, 1920/480 "
+        f"{spectral._kernel_plan(1920, 480, None)} as (frame tile, FFTs side by side))")
     # the FFT route of R / the magnitude encode and of E / F: both layouts at
     # every size the route takes, with the plans' team counts and fewer
     n_fft_checked = 0
@@ -3288,8 +3408,9 @@ def main() -> int:
         """A or E against its plain version.  A (taps) takes the FFT route
         wherever n_fft is a power of two from 64 to 4096 (E's instance under
         the taps' own window: |X| bit-identical to the plain version, the mel
-        product's fmaf sums in another order than cuBLAS), the factored
-        front end elsewhere (row A_factored)."""
+        product's fmaf sums in another order than cuBLAS), the smooth route
+        where it is even and 5-smooth (row A_smooth), the factored front end
+        elsewhere (row A_factored)."""
         (A, _), taps_w, window = front_end(wname, n_fft)
         taps = taps_w if taps is None else taps
         kw = dict(mel_bank=bank, offset=offset, scale=scale, contrast=contrast, taps=taps,
@@ -3299,11 +3420,9 @@ def main() -> int:
         y_p = spectral.fused_melspec_reference(x, n_fft, hop, **kw)
         torch.cuda.synchronize()
         if taps is not None:
-            fft = spectral._kernel_plan(n_fft, hop, taps)[1] > 0
-            route = "fft" if fft else "factored"
-            require(spectral.routes[f"fused_melspec:{route}"] == 1 and fft == ff.fft_covers(n_fft),
-                    f"A {name}: not on the {route} route")
-            A = "A" if fft else "A_factored"
+            route = {"fft": "fft", "smooth": "smooth", "other": "factored"}[spectral.melspec_route(n_fft)]
+            require(spectral.routes[f"fused_melspec:{route}"] == 1, f"A {name}: not on the {route} route")
+            A = {"fft": "A", "smooth": "A_smooth", "factored": "A_factored"}[route]
         e = rel_err(y_k, y_p)
         # fp32 sums in another order than cuBLAS: a few 1e-7 per product,
         # through sqrt, mel and log1p; 2e-5 leaves a decade of room
@@ -3329,8 +3448,9 @@ def main() -> int:
     def check_stats(name, x, n_fft, hop, wname, taps=None):
         """B or F against its plain version.  B (taps) takes the FFT route
         wherever n_fft is a power of two from 64 to 4096 (F's instance under
-        the taps' own window), the factored front end elsewhere: on the FFT
-        route the statistics are bit-identical to the plain version's where
+        the taps' own window), the smooth route where it is even and
+        5-smooth, the factored front end elsewhere: on the FFT and smooth
+        routes the statistics are bit-identical to the plain version's where
         the order of the sums does not enter (the extrema: one value each),
         and the sums differ by the order of the float64 reduction of the
         blocks' float32 partials only."""
@@ -3340,17 +3460,13 @@ def main() -> int:
         s_k = spectral.fused_melspec_stats(x, n_fft, hop, "log1p", taps=taps, window=window)
         s_p = spectral.fused_melspec_stats_reference(x, n_fft, hop, "log1p", taps=taps, window=window)
         if taps is not None:
-            fft = spectral._kernel_plan(n_fft, hop, taps)[1] > 0
-            route = "fft" if fft else "factored"
-            require(spectral.routes[f"fused_melspec_stats:{route}"] == 1 and fft == ff.fft_covers(n_fft),
-                    f"B {name}: not on the {route} route")
-            if fft:
+            route = {"fft": "fft", "smooth": "smooth", "other": "factored"}[spectral.melspec_route(n_fft)]
+            require(spectral.routes[f"fused_melspec_stats:{route}"] == 1, f"B {name}: not on the {route} route")
+            if route != "factored":
                 same = s_k["min"].item() == s_p["min"].item() and s_k["max"].item() == s_p["max"].item()
-                log(f"  B {name} (FFT route): extrema bit-identical to the plain version: {same}")
-                require(same, f"B {name}: the FFT route's extrema differ from the plain version's")
-                Bk = "B"
-            else:
-                Bk = "B_factored"
+                log(f"  B {name} ({route} route): extrema bit-identical to the plain version: {same}")
+                require(same, f"B {name}: the {route} route's extrema differ from the plain version's")
+            Bk = {"fft": "B", "smooth": "B_smooth", "factored": "B_factored"}[route]
         e_sum = abs(s_k["sum"].item() - s_p["sum"].item()) / abs(s_p["sum"].item())
         e_sq = abs(s_k["sumsq"].item() - s_p["sumsq"].item()) / abs(s_p["sumsq"].item())
         e_min = abs(s_k["min"].item() - s_p["min"].item())
@@ -3481,12 +3597,15 @@ def main() -> int:
     # within 1e-5 of the largest value and against the float64 oracle
     # (torch.stft in float64 of the same clips) within 1e-5 of the largest
     # magnitude; F's statistics of log1p |X| against the oracle's (sums within
-    # 1e-5 relative, extrema within 1e-5 of the largest).  The product route
-    # at 768/256 (n_fft no power of two) against its plain version, as above.
+    # 1e-5 relative, extrema within 1e-5 of the largest).  The smooth route
+    # (n_fft even and 5-smooth: 768 = 2^8 3, 640, 384, 1536, 1920, 3072) the
+    # same, and |X| bit-identical to its plain version (the mixed-radix
+    # frames_rfft in the plain version's order, as R's); the product route
+    # at 896/224 (2^7 7) against its plain version, as above.
     def check_fullk_routes(name, x, n_fft, hop):
         w = gaussian_dgt_window(n_fft, device=dev)
-        fft = ff.fft_covers(n_fft)
-        front = "fft" if fft else "product"
+        front = {"fft": "fft", "smooth": "smooth", "other": "product"}[spectral.melspec_route(n_fft)]
+        fft = front != "product"
         kw = dict(mel_bank=None, offset=0.0, scale=1.0, contrast="none", taps=None, window=w)
         spectral.reset_launches()
         m_k = spectral.fused_melspec(x, n_fft, hop, **kw)
@@ -3508,20 +3627,42 @@ def main() -> int:
         e_x = max(abs(s_k[k].item() - s_o[k]) / ext for k in ("min", "max"))
         e_sp = max(abs(s_k[k].item() - s_p[k].item()) / abs(s_p[k].item()) for k in ("sum", "sumsq"))
         tol = 1e-5 if fft else 2e-5
+        same = torch.equal(m_k, m_p)
         log(f"  E / F {name} ({front} route, plan {spectral._kernel_plan(n_fft, hop, None)}): |X| vs plain rel "
-            f"{e_p:.3e} (tol {tol:.0e}), vs float64 oracle {e_o:.3e} (tol 1e-05); statistics vs oracle: sums "
-            f"{e_s:.3e}, extrema {e_x:.3e} (tol 1e-05), sums vs plain {e_sp:.3e} (tol 1e-05)")
+            f"{e_p:.3e} (tol {tol:.0e}; bit-identical: {same}), vs float64 oracle {e_o:.3e} (tol 1e-05); "
+            f"statistics vs oracle: sums {e_s:.3e}, extrema {e_x:.3e} (tol 1e-05), sums vs plain {e_sp:.3e} "
+            f"(tol 1e-05)")
         require(torch.isfinite(m_k).all().item() and m_k.shape == m_p.shape, f"E {name}: bad output")
         require(e_p <= tol and e_o <= 1e-5 and e_s <= 1e-5 and e_x <= 1e-5 and e_sp <= 1e-5,
                 f"E / F {name}: out of budget")
-        key = "" if fft else "_product"
+        require(same or front != "smooth", f"E {name}: the smooth route's |X| is not bit-identical to its plain "
+                                           "version")
+        key = {"fft": "", "smooth": "_smooth", "product": "_product"}[front]
         errs["E" + key] = max(errs.get("E" + key, 0.0), abs_err(m_k, m_p))
         errs["F" + key] = max(errs.get("F" + key, 0.0),
                               *(abs(s_k[k].item() - s_p[k].item()) for k in ("min", "max")))
 
     check_fullk_routes(f"main shape {B} x {L}", mono, N_FFT, HOP)
-    for n_fft, hop in ((512, 128), (2048, 512), (4096, 1024), (768, 256)):
+    for n_fft, hop in ((512, 128), (2048, 512), (4096, 1024), (896, 224)) + SMOOTH_SHAPES:
         check_fullk_routes(f"{n_fft}/{hop}, 5 x 20000", rag, n_fft, hop)
+    # A and B on the smooth route at the same shapes (hann; blackman, P = 2,
+    # at 768/192 and 1920/480), with each shape's square mel bank, the bf16
+    # store and the int16 input; and factored at 896/224
+    for n_fft, hop in SMOOTH_SHAPES + ((896, 224),):
+        bank_s = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=n_fft).mel_bank
+        for wname in ("hann", "blackman") if (n_fft, hop) in ((768, 192), (1920, 480)) else ("hann",):
+            check_forward(f"{n_fft}/{hop} {wname}, 5 x 20000", rag, n_fft, hop, wname, bank_s, -0.2, 0.7)
+            check_stats(f"{n_fft}/{hop} {wname}, 5 x 20000", rag, n_fft, hop, wname)
+    # A on the smooth route is E's instance under the taps' own window: bit
+    # for bit the same output (with the mel bank, so the product's order too)
+    w_t = get_window("hann", 768, device=dev)
+    taps_t = taps_for_window(w_t)
+    w_tw = torch.as_tensor(ff.taps_window(tuple(float(t) for t in taps_t), 768), device=dev)
+    bank_t = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=768).mel_bank
+    a_t = spectral.fused_melspec(rag, 768, 192, bank_t, 0.1, 1.2, taps=taps_t)
+    e_t = spectral.fused_melspec(rag, 768, 192, bank_t, 0.1, 1.2, taps=None, window=w_tw)
+    require(torch.equal(a_t, e_t), "A at 768/192 is not E's smooth instance under the taps' window")
+    log("  A at 768/192 (hann taps) bit-identical to E under taps_window: True")
     spectral.reset_launches()
     torch.cuda.empty_cache()  # the float64 oracles' blocks: no later phase finds its cache grown
     # K: the PGHI recurrence (causal and bidirectional), the synthesis and the
@@ -4095,7 +4236,8 @@ def main() -> int:
             "the main path's fit (B) and forward (A) must take the FFT route")
     for k in ("fused_melspec_stats", "fused_melspec"):
         counts[k + ":fft"] = spectral.routes[k + ":fft"]
-        counts[k + ":factored"] = 0      # the factored route's launches: phase 4h
+        counts[k + ":smooth"] = 0        # the smooth and the factored route's launches: phase 4h
+        counts[k + ":factored"] = 0
     sp_m = path_split(att, chain, audio)
     log(f"  fit + forward, median of 5 runs: {sp_m['wall']:.2f} ms to the card's end; the host returns from the "
         f"fit after {sp_m['fit']:.2f} ms, from building the forward after {sp_m['build']:.2f}, from calling it "
@@ -4499,6 +4641,18 @@ def main() -> int:
         pair = 2.0 * n + (lg // 2) * (n / 4) * 34.0 + (lg % 2) * (n / 2) * 4.0 + 8.0 * (n // 2 + 1)
         return pair * frames / 2.0
 
+    def smooth_design_flops(n, frames):
+        """Operations the mixed-radix frames_rfft (fft_smem.cuh, kSmooth)
+        does for `frames` frames of n points, two a pair: the window (2 n),
+        per butterfly of radix 5 / 3 / 4 / 2 48 / 16 / 16 / 4 operations and
+        6 a twiddle (r - 1 of them, none in the last stage), the split (8 a
+        bin)."""
+        bfly, rad = {5: 48, 3: 16, 4: 16, 2: 4}, ff.fft_radices(n)
+        pair = 2.0 * n + 8.0 * (n // 2 + 1)
+        for st, r in enumerate(rad):
+            pair += (n / r) * (bfly[r] + (6.0 * (r - 1) if st < len(rad) - 1 else 0.0))
+        return pair * frames / 2.0
+
     # window (1 per sample), |X| (4 per bin), mel (2 per nonzero), log1p and affine (3 per bin)
     fwd_flops = fft_flops + B * Tn * (N_FFT + 7.0 * F + 2.0 * nnz)
     stats_flops = fft_flops + B * Tn * (N_FFT + 5.0 * F + 4.0 * F)
@@ -4556,8 +4710,11 @@ def main() -> int:
             a, tp = u / u.abs().clamp_min(1e-16), reb
         return a, tp
 
-    # A's factored route at 768/192 (n_fft no power of two) on the same
-    # clips, with the square bank of that size: phase 4h's launches
+    # A's and B's smooth route at 768/192 (2^8 3) on the same clips, with
+    # the square bank of that size: E's and F's smooth instances under the
+    # taps' own window, frames_rfft<true>'s operations (smooth_design_flops);
+    # their factored route at 896/224 (2^7 7): that design's chunk products,
+    # twiddle combine and taps conv.  Phase 4h's launches, both
     bank_g = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=n_fft_g).mel_bank
     nnz_g = int((bank_g != 0).sum().item())
     kw_ag = dict(kw, mel_bank=bank_g, taps=taps_g)
@@ -4566,8 +4723,32 @@ def main() -> int:
         S = torch.stft(mono, n_fft_g, hop_g, window=w_g, center=True, pad_mode="reflect", return_complex=True)
         return (torch.log1p(torch.matmul(S.abs().transpose(-2, -1), bank_g)) - off) / scl
 
+    n_fft_y, hop_y = 896, 224
+    w_y = get_window("hann", n_fft_y, device=dev)
+    taps_y = taps_for_window(w_y)
+    Ty, Fy, ov_y = 1 + L // hop_y, n_fft_y // 2 + 1, n_fft_y // hop_y
+    el_y = float(B * Ty * Fy)
+    fft_y = 2.5 * n_fft_y * math.log2(n_fft_y) * B * Ty
+    bank_y = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=n_fft_y).mel_bank
+    nnz_y = int((bank_y != 0).sum().item())
+    kw_ay = dict(kw, mel_bank=bank_y, taps=taps_y)
+    require(spectral.melspec_route(n_fft_g) == "smooth" and spectral.melspec_route(n_fft_y) == "other",
+            "phase 5: A and B must be smooth at 768 and factored at 896")
+
+    def lib_forward_y():
+        S = torch.stft(mono, n_fft_y, hop_y, window=w_y, center=True, pad_mode="reflect", return_complex=True)
+        return (torch.log1p(torch.matmul(S.abs().transpose(-2, -1), bank_y)) - off) / scl
+
+    def lib_stats_y():
+        v = torch.log1p(torch.stft(mono, n_fft_y, hop_y, window=w_y, center=True, pad_mode="reflect",
+                                   return_complex=True).abs())
+        return v.sum(), (v * v).sum(), v.min(), v.max()
+
     factored_g = (4.0 * B * (Tg + ov_g - 1) * hop_g * Fg + 8.0 * el_g * ov_g
-                  + 4.0 * el_g * (2 * len(taps_g) - 1))        # the factored design's front end at 768/192
+                  + 4.0 * el_g * (2 * len(taps_g) - 1))        # the factored design's front end at 768/192 (G, H)
+    factored_y = (4.0 * B * (Ty + ov_y - 1) * hop_y * Fy + 8.0 * el_y * ov_y
+                  + 4.0 * el_y * (2 * len(taps_y) - 1))        # the factored design's front end at 896/224
+    smooth_fwd, smooth_stats = melspec_smooth_instance(_build.kernel_resources())
     specs = [
         dict(key="A", name="fused_melspec", front_end="fft",
              source="acids_transforms_tpu_torch/csrc/spectral.cu (+ csrc/fft_smem.cuh)",
@@ -4588,16 +4769,27 @@ def main() -> int:
              library=lib_forward,
              bound=bound_of(4.0 * B * L + 4.0 * B * Tn * F + 4.0 * F * F, fwd_flops),
              ceiling=ceiling_of(fft_design_flops(N_FFT, B * Tn) + 7.0 * B * Tn * F + 2.0 * B * Tn * nnz)),
-        dict(key="A_factored", name="fused_melspec_factored", front_end="factored",
-             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+        dict(key="A_smooth", name="fused_melspec_smooth", front_end="smooth",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:732",
-             launches=counts["fused_melspec:factored"],
+             launches=counts["fused_melspec:smooth"],
              run=lambda: spectral.fused_melspec(mono, n_fft_g, hop_g, **kw_ag),
              plain=lambda: spectral.fused_melspec_reference(mono, n_fft_g, hop_g, **kw_ag),
              library=lib_forward_g,
              bound=bound_of(4.0 * B * L + 4.0 * el_g + 4.0 * Fg * Fg,
                             fft_g + B * Tg * (n_fft_g + 7.0 * Fg + 2.0 * nnz_g)),
-             ceiling=ceiling_of(factored_g + 3.0 * el_g + 2.0 * B * Tg * nnz_g)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_g, B * Tg) + 7.0 * el_g + 2.0 * B * Tg * nnz_g),
+             resources=smooth_fwd),
+        dict(key="A_factored", name="fused_melspec_factored", front_end="factored",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:732",
+             launches=counts["fused_melspec:factored"],
+             run=lambda: spectral.fused_melspec(mono, n_fft_y, hop_y, **kw_ay),
+             plain=lambda: spectral.fused_melspec_reference(mono, n_fft_y, hop_y, **kw_ay),
+             library=lib_forward_y,
+             bound=bound_of(4.0 * B * L + 4.0 * el_y + 4.0 * Fy * Fy,
+                            fft_y + B * Ty * (n_fft_y + 7.0 * Fy + 2.0 * nnz_y)),
+             ceiling=ceiling_of(factored_y + 3.0 * el_y + 2.0 * B * Ty * nnz_y)),
         dict(key="B", name="fused_melspec_stats", front_end="fft",
              source="acids_transforms_tpu_torch/csrc/spectral.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:903",
@@ -4607,15 +4799,24 @@ def main() -> int:
              library=lib_stats,
              bound=bound_of(4.0 * B * L, stats_flops),
              ceiling=ceiling_of(fft_design_flops(N_FFT, B * Tn) + 9.0 * B * Tn * F)),
-        dict(key="B_factored", name="fused_melspec_stats_factored", front_end="factored",
-             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+        dict(key="B_smooth", name="fused_melspec_stats_smooth", front_end="smooth",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:903",
-             launches=counts["fused_melspec_stats:factored"],
+             launches=counts["fused_melspec_stats:smooth"],
              run=lambda: spectral.fused_melspec_stats(mono, n_fft_g, hop_g, "log1p", taps=taps_g),
              plain=lambda: spectral.fused_melspec_stats_reference(mono, n_fft_g, hop_g, "log1p", taps=taps_g),
              library=lib_stats_g,
              bound=bound_of(4.0 * B * L, fft_g + B * Tg * (n_fft_g + 9.0 * Fg)),
-             ceiling=ceiling_of(factored_g + 8.0 * el_g)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_g, B * Tg) + 9.0 * el_g), resources=smooth_stats),
+        dict(key="B_factored", name="fused_melspec_stats_factored", front_end="factored",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:903",
+             launches=counts["fused_melspec_stats:factored"],
+             run=lambda: spectral.fused_melspec_stats(mono, n_fft_y, hop_y, "log1p", taps=taps_y),
+             plain=lambda: spectral.fused_melspec_stats_reference(mono, n_fft_y, hop_y, "log1p", taps=taps_y),
+             library=lib_stats_y,
+             bound=bound_of(4.0 * B * L, fft_y + B * Ty * (n_fft_y + 9.0 * Fy)),
+             ceiling=ceiling_of(factored_y + 8.0 * el_y)),
         dict(key="C", name="gl_momentum_step", front_end="fft",
              source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:294",
@@ -4655,9 +4856,10 @@ def main() -> int:
     # under another window (no mel), so the same bound.  On the main path they
     # take the FFT route (fft_smem.cuh:frames_rfft): its own fp32 ceiling is
     # the operations this design does (fft_design_flops), not a bound.  Their
-    # product route (n_fft no power of two) does the full n_fft-long product
-    # per frame, `overlap` times the chunk products: its rows stand at 768/256
-    # on the same clips, counted in phase 4h.
+    # smooth route (768/256 = 2^8 3, on the same clips) does
+    # smooth_design_flops; their product route (896/224 = 2^7 7) the full
+    # n_fft-long product per frame, `overlap` times the chunk products.  Both
+    # counted in phase 4h.
     kw_e = dict(mel_bank=None, offset=dgt_fit[2].norm.offset, scale=dgt_fit[2].norm.scale,
                 contrast="log1p", taps=None, window=dgt_f.window)
     e_need = fft_flops + B * Tn * (N_FFT + 7.0 * F)
@@ -4739,6 +4941,19 @@ def main() -> int:
         v = torch.log1p(lib_dgt_spec_p(mono))
         return v.sum(), (v * v).sum(), v.min(), v.max()
 
+    w_yd = gaussian_dgt_window(n_fft_y, device=dev)
+    kw_yd = dict(kw_e, window=w_yd)
+    e_need_y = fft_y + B * Ty * (n_fft_y + 7.0 * Fy)
+    fullk_y = 4.0 * B * Ty * n_fft_y * Fy                    # cos and sin products of every frame
+
+    def lib_dgt_spec_y(x):
+        return torch.stft(x, n_fft_y, hop_y, window=w_yd, center=True, pad_mode="reflect",
+                          return_complex=True).abs().transpose(-2, -1)
+
+    def lib_dgt_stats_y():
+        v = torch.log1p(lib_dgt_spec_y(mono))
+        return v.sum(), (v * v).sum(), v.min(), v.max()
+
     spectral_src = "acids_transforms_tpu_torch/csrc/spectral.cu (+ csrc/fft_smem.cuh)"
     specs += [
         dict(key="E", name="fused_melspec_fullk", source=spectral_src, front_end="fft",
@@ -4758,25 +4973,42 @@ def main() -> int:
              library=lib_dgt_stats,
              bound=bound_of(4.0 * B * L, e_need + 2.0 * n_el),
              ceiling=ceiling_of(fft_design_flops(N_FFT, B * Tn) + 9.0 * n_el)),
-        dict(key="E_product", name="fused_melspec_fullk_product", front_end="product",
-             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+        dict(key="E_smooth", name="fused_melspec_fullk_smooth", front_end="smooth", source=spectral_src,
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:715",
-             launches=counts["fused_melspec_fullk:product"],
+             launches=counts["fused_melspec_fullk:smooth"],
              run=lambda: spectral.fused_melspec(mono, n_fft_p, hop_p, **kw_p),
              plain=lambda: spectral.fused_melspec_reference(mono, n_fft_p, hop_p, **kw_p),
              library=lambda: (torch.log1p(lib_dgt_spec_p(mono)) - kw_e["offset"]) / kw_e["scale"],
              bound=bound_of(4.0 * B * L + 4.0 * el_p, e_need_p),
-             ceiling=ceiling_of(fullk_p + 7.0 * el_p)),
-        dict(key="F_product", name="fused_melspec_stats_fullk_product", front_end="product",
-             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+             ceiling=ceiling_of(smooth_design_flops(n_fft_p, B * Tp) + 7.0 * el_p), resources=smooth_fwd),
+        dict(key="F_smooth", name="fused_melspec_stats_fullk_smooth", front_end="smooth", source=spectral_src,
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:888",
-             launches=counts["fused_melspec_stats_fullk:product"],
+             launches=counts["fused_melspec_stats_fullk:smooth"],
              run=lambda: spectral.fused_melspec_stats(mono, n_fft_p, hop_p, "log1p", taps=None, window=w_p),
              plain=lambda: spectral.fused_melspec_stats_reference(mono, n_fft_p, hop_p, "log1p", taps=None,
                                                                   window=w_p),
              library=lib_dgt_stats_p,
              bound=bound_of(4.0 * B * L, e_need_p + 2.0 * el_p),
-             ceiling=ceiling_of(fullk_p + 9.0 * el_p)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_p, B * Tp) + 9.0 * el_p), resources=smooth_stats),
+        dict(key="E_product", name="fused_melspec_fullk_product", front_end="product",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:715",
+             launches=counts["fused_melspec_fullk:product"],
+             run=lambda: spectral.fused_melspec(mono, n_fft_y, hop_y, **kw_yd),
+             plain=lambda: spectral.fused_melspec_reference(mono, n_fft_y, hop_y, **kw_yd),
+             library=lambda: (torch.log1p(lib_dgt_spec_y(mono)) - kw_e["offset"]) / kw_e["scale"],
+             bound=bound_of(4.0 * B * L + 4.0 * el_y, e_need_y),
+             ceiling=ceiling_of(fullk_y + 7.0 * el_y)),
+        dict(key="F_product", name="fused_melspec_stats_fullk_product", front_end="product",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:888",
+             launches=counts["fused_melspec_stats_fullk:product"],
+             run=lambda: spectral.fused_melspec_stats(mono, n_fft_y, hop_y, "log1p", taps=None, window=w_yd),
+             plain=lambda: spectral.fused_melspec_stats_reference(mono, n_fft_y, hop_y, "log1p", taps=None,
+                                                                  window=w_yd),
+             library=lib_dgt_stats_y,
+             bound=bound_of(4.0 * B * L, e_need_y + 2.0 * el_y),
+             ceiling=ceiling_of(fullk_y + 9.0 * el_y)),
         # the recurrence has no single PyTorch call to stand beside it
         dict(key="K_phases", name="pghi_phases", source=pghi_src, replaces=pghi_tpu,
              launches=counts["pghi_phases"],
@@ -5110,18 +5342,6 @@ def main() -> int:
     def lib_encode():
         rows = ss.session_rows(sx, N_FFT, HOP, n_sf)
         return torch.stft(rows, N_FFT, HOP, window=s_rt.window, center=False, return_complex=True)
-
-    def smooth_design_flops(n, frames):
-        """Operations the mixed-radix frames_rfft (fft_smem.cuh, kSmooth)
-        does for `frames` frames of n points, two a pair: the window (2 n),
-        per butterfly of radix 5 / 3 / 4 / 2 48 / 16 / 16 / 4 operations and
-        6 a twiddle (r - 1 of them, none in the last stage), the split (8 a
-        bin)."""
-        bfly, rad = {5: 48, 3: 16, 4: 16, 2: 4}, ff.fft_radices(n)
-        pair = 2.0 * n + 8.0 * (n // 2 + 1)
-        for st, r in enumerate(rad):
-            pair += (n / r) * (bfly[r] + (6.0 * (r - 1) if st < len(rad) - 1 else 0.0))
-        return pair * frames / 2.0
 
     n_fft_q, hop_q = 1200, 300          # the smooth route's shape (R, L, M, P, S, O's synthesis)
     F_q, T_q = n_fft_q // 2 + 1, -(-STREAM_LEN // 2400) * 8
@@ -5641,6 +5861,9 @@ def main() -> int:
                    library_single_call_ms=l_single)
         if "front_end" in s:
             row["front_end"] = s["front_end"]
+        if "resources" in s:             # the instance's -Xptxas -v figures
+            row["registers"] = s["resources"]["registers"]
+            row["spill_bytes"] = s["resources"].get("spill_stores", 0) + s["resources"].get("spill_loads", 0)
         kernels.append(row)
         front = f" [{s['front_end']} route]" if "front_end" in s else ""
         ratio = "" if l_ms is None else f", {k_ms / l_ms:.2f}x the library"
@@ -5648,6 +5871,8 @@ def main() -> int:
             "" if l_single is None else f", the library's {l_single:.3f} ms")
         # figures from the plan or a model, not measured: the log line only
         extra = "".join(f"; {k} {v:.3f}" for k, v in s.get("extra", {}).items())
+        if "resources" in s:
+            extra += f"; {row['registers']} registers, {row['spill_bytes']} B spilled"
         log(f"  {s['key']} {s['name']}{front}: {k_ms:.3f} ms, plain {row['plain_ms']:.3f} ms, "
             f"library {'none' if l_ms is None else format(l_ms, '.3f') + ' ms'}{ratio}, bound {b_ms:.3f} ms by "
             f"{b_by} ({100 * b_ms / k_ms:.1f}% of it reached); fp32 ceiling of this design "
@@ -5671,6 +5896,14 @@ def main() -> int:
     h_op, _ = host_and_device_ms(lambda: spectral.fused_melspec_op(mono, N_FFT, HOP, **kw), 20)
     h_dir, _ = host_and_device_ms(lambda: spectral.fused_melspec(mono, N_FFT, HOP, **kw), 20)
     log(f"  A's host enqueue a call: through the operator {h_op:.4f} ms, direct {h_dir:.4f} ms")
+
+    # E and F on the smooth route under every plan: the rule's pick against
+    # the fastest (reported, not gated: run-to-run noise is a few %)
+    sweep = smooth_plan_sweep(mono, args.repeats)
+    for shape, r in sweep.items():
+        log(f"  smooth plan sweep {shape} (E + F b2b, ms; tile x FFTs, KB, blocks an SM): " + "; ".join(
+            f"{p['tile']} x {p['teams']} ({p['smem_kb']:.1f} KB, {p['blocks']}) {p['e_ms']:.3f} + {p['f_ms']:.3f}"
+            for p in r["rows"]) + f"; the rule's pick {r['pick']} {100 * r['over']:+.1f}% over the best {r['best']}")
 
     # O's host share: a chunk's polish (one launch) and, for the grids the
     # polish does not take, a projection's two launches, enqueued back to

@@ -144,7 +144,7 @@ def test_route_rule_and_coverage():
     FFT route existed (the product's gates, which the code still computes) is
     lost.  The product route keeps every other shape."""
     assert [n for n in range(16, 9000) if fft_covers(n)] == SIZES
-    for n_fft, hop in _shapes() + [(1200, 300), (960, 240), (768, 256)]:
+    for n_fft, hop in _shapes() + [(1200, 300), (960, 240), (768, 256), (896, 224)]:
         F = n_fft // 2 + 1
         # R and the magnitude encode (the encode gate before the FFT route)
         old_encode = hop % 4 == 0 and PK._pick_rows("encode", n_fft, hop) is not None
@@ -159,15 +159,16 @@ def test_route_rule_and_coverage():
                        and SP._pick_tile(hop, n_fft // hop, F) is not None)
         if old_melspec:
             tile_t, teams = SP._kernel_plan(n_fft, hop, None)
-            assert (teams > 0) == fft_covers(n_fft), (n_fft, hop)
+            assert (teams > 0) == (fft_covers(n_fft) or fft_covers_smooth(n_fft)), (n_fft, hop)
             if teams:
                 assert SP._fft_smem_bytes(tile_t, hop, n_fft // hop, F, teams) <= SP.MAX_SMEM
             else:
                 assert tile_t == SP._pick_tile(hop, n_fft // hop, F)
-        # with taps (A and B) the FFT route where fft_covers, E's and F's plan;
-        # the factored front end and its tile elsewhere
+        # with taps (A and B) the FFT route where fft_covers and the smooth
+        # route where fft_covers_smooth, E's and F's plan; the factored front
+        # end and its tile elsewhere
         if SP.fused_melspec_available(n_fft, hop, (0.5, -0.25)) and SP._pick_tile(hop, n_fft // hop, F):
-            if fft_covers(n_fft):
+            if fft_covers(n_fft) or fft_covers_smooth(n_fft):
                 assert SP._kernel_plan(n_fft, hop, (0.5, -0.25)) == SP._kernel_plan(n_fft, hop, None)
             else:
                 assert SP._kernel_plan(n_fft, hop, (0.5, -0.25)) == (SP._pick_tile(hop, n_fft // hop, F), 0)
@@ -176,7 +177,7 @@ def test_route_rule_and_coverage():
     # 1200 and 960 (5-smooth) on the smooth route, 1344 = 2^6 3 7 on the product
     assert PK._encode_plan(1200, 300) == (16, 2) and PK._encode_plan(960, 240)[1] > 0
     assert PK._encode_plan(1344, 336)[1] == 0
-    assert SP._kernel_plan(768, 256, None)[1] == 0
+    assert SP._kernel_plan(768, 256, None)[1] > 0 and SP._kernel_plan(896, 224, None)[1] == 0
     assert SP._kernel_plan(4096, 1024, None)[0] == 8       # n_fft 4096: a tile of 8 frames
 
 
@@ -198,12 +199,14 @@ def test_no_route_counted_on_the_cpu():
                               "session_complex_decode:product",
                               "gl_project_synthesis:fft", "gl_project_synthesis:smooth",
                               "gl_project_synthesis:product", "gl_polish:fft"}
-    assert set(SP.routes) == {"fused_melspec_fullk:fft", "fused_melspec_fullk:product",
-                              "fused_melspec_stats_fullk:fft", "fused_melspec_stats_fullk:product",
+    assert set(SP.routes) == {"fused_melspec_fullk:fft", "fused_melspec_fullk:smooth", "fused_melspec_fullk:product",
+                              "fused_melspec_stats_fullk:fft", "fused_melspec_stats_fullk:smooth",
+                              "fused_melspec_stats_fullk:product",
                               "fused_spectral_repr_fullk:fft", "fused_spectral_repr_fullk:product",
                               "fused_repr_stats_fullk:fft", "fused_repr_stats_fullk:product",
-                              "fused_melspec:fft", "fused_melspec:factored",
-                              "fused_melspec_stats:fft", "fused_melspec_stats:factored",
+                              "fused_melspec:fft", "fused_melspec:smooth", "fused_melspec:factored",
+                              "fused_melspec_stats:fft", "fused_melspec_stats:smooth",
+                              "fused_melspec_stats:factored",
                               "fused_spectral_repr:fft", "fused_spectral_repr:factored",
                               "fused_repr_stats:fft", "fused_repr_stats:factored"}
 

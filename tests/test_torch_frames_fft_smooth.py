@@ -195,13 +195,15 @@ def test_l_and_m_vs_jax_scan_and_oracle(n, hop):
 
 def test_route_rule():
     """R, L and the decodes smooth at 1200/300 and 960/240; the polish and
-    the full-K kernels keep ``fft_covers``; 1344/336 on the products."""
+    the full-K kernels but E and F keep ``fft_covers`` (E and F take the
+    smooth route too); 1344/336 on the products."""
     for n, hop in SESSION_SHAPES + [(768, 192), (400, 100), (1920, 480)]:
         assert PK.session_route(n) == "smooth"
         assert PK._encode_plan(n, hop)[1] > 0 and PK._roundtrip_plan(n, hop)[1] > 0
         assert PK._decode_plan(n, hop)[1] > 0 and PK._decode_plan(n, hop, PK.PROJECT_SYN_ROWS)[1] > 0
         assert PK._polish_plan(n, hop, 20) is None
-    assert SP._kernel_plan(768, 192, None)[1] == 0 and SP._kernel_plan(1920, 480, None)[1] == 0    # E and F
+    assert SP._kernel_plan(768, 192, None)[1] > 0 and SP._kernel_plan(1920, 480, None)[1] > 0      # E and F
+    assert SP._kernel_plan(896, 224, None)[1] == 0                      # 2^7 7: E and F's product route
     assert PK._encode_plan(1200, 300) == (16, 2) and PK._roundtrip_plan(1200, 300) == (16, 2)
     # the plans a sweep of every plan on the H100 found fastest (frames_fft.class_plan_smooth)
     assert PK._roundtrip_plan(960, 240) == (56, 4) and PK._roundtrip_plan(1920, 480) == (24, 2)

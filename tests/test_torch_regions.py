@@ -47,16 +47,25 @@ def test_table_loads_and_values_measured():
                                "pghi_gl": None, "random": None}
     assert all(regions.batch_cap(m) is None for m in s["batch_caps"])
     assert t["fuse_fit"]["fullk_n_fft_max"] == 4096 == regions.fit_fullk_max_n_fft()
-    assert t["fuse_fit"]["fullk_fft_route_only"] is True
+    # the magnitude's fit (F) won on the smooth route at 768/192 (0.22x) and
+    # lost on the product route at 896/224 (1.14x); PolarIF's (H full-K) won
+    # on its product route at both (0.57x, 0.56x)
+    assert t["fuse_fit"]["melspec_fullk_routes"] == ["fft", "smooth"]
+    assert t["fuse_fit"]["repr_fullk_routes"] == ["fft", "product"]
     ff = t["fuse_forward"]
-    # (region, n_fft_min, fft_route_only): at 64/32 the kernel lost for the
-    # cosine-sum magnitude (1.03x), Polar (1.10x, 1.11x) and MFCC (1.05x)
-    for r, lo, fft_only in ((ff["melspec_taps"], 128, False), (ff["melspec_fullk"], 64, True),
-                            (ff["repr_if"]["taps"], 64, False), (ff["repr_if"]["fullk"], 64, False),
-                            (ff["repr_phase_imag"]["taps"], 128, False), (ff["repr_phase_imag"]["fullk"], 128, True),
-                            (ff["mfcc"], 128, False)):
-        assert set(r) == {"_why", "n_fft_min", "n_fft_max", "fft_route_only"}   # no overlap key
-        assert (r["n_fft_min"], r["n_fft_max"], r["fft_route_only"]) == (lo, 4096, fft_only)
+    # (region, n_fft_min, routes): at 64/32 the kernel lost for the
+    # cosine-sum magnitude (1.05x) and Polar (1.08x, 1.12x); MFCC won there
+    # this time (0.96x, 1.05x before: run noise near 1); the full-K
+    # magnitude's product route lost at 896/224 (1.39x), the full-K Polar's
+    # at 768/192 and 896/224 (1.28x, 1.21x)
+    smooth, fact, prod = ["fft", "smooth", "factored"], ["fft", "factored"], ["fft", "product"]
+    for r, lo, routes in ((ff["melspec_taps"], 128, smooth), (ff["melspec_fullk"], 64, ["fft", "smooth"]),
+                          (ff["repr_if"]["taps"], 64, fact), (ff["repr_if"]["fullk"], 64, prod),
+                          (ff["repr_phase_imag"]["taps"], 128, fact), (ff["repr_phase_imag"]["fullk"], 128, ["fft"]),
+                          (ff["mfcc"], 64, smooth)):
+        assert set(r) == {"_why", "n_fft_min", "n_fft_max", "routes"}   # no overlap key
+        assert (r["n_fft_min"], r["n_fft_max"], r["routes"]) == (lo, 4096, routes)
+        assert "896/224" in r["_why"]
 
 
 def _numbers(node, path=()):
@@ -80,9 +89,11 @@ def _numbers(node, path=()):
 
 def test_every_value_has_a_why_naming_the_h100():
     rows = list(_numbers(regions.table()))
-    assert len(rows) == 31
+    assert len(rows) == 32
+    routes = {"fft", "smooth", "product", "factored"}
     for path, value, why in rows:
-        assert value is None or isinstance(value, (bool, int)), path
+        assert value is None or isinstance(value, (bool, int)) or (
+            isinstance(value, list) and value[0] == "fft" and set(value) <= routes), path
         assert why and "H100" in why and " W" in why, path
 
 
@@ -213,16 +224,21 @@ def test_fuse_region_helpers_match_table():
     # 64/32: the cosine-sum kernel lost (1.03x), the full-K one won (0.78x)
     assert not regions.melspec_region_ok(64, 32, True) and regions.melspec_region_ok(64, 32, False)
     assert regions.repr_region_ok(64, 32, True, "if") and not regions.repr_region_ok(64, 32, True, "phase")
-    assert not regions.mfcc_region_ok(64, 32) and regions.mfcc_region_ok(128, 32)
-    # full-K: the FFT route only (the product route lost at 768: 1.48x)
-    assert regions.melspec_region_ok(2048, 512, False) and not regions.melspec_region_ok(768, 192, False)
-    assert regions.repr_region_ok(768, 192, False, "if")                         # 0.95x: kept
+    assert regions.mfcc_region_ok(64, 32) and regions.mfcc_region_ok(128, 32)
+    # full-K magnitude: the FFT and smooth routes (its product route lost at
+    # 896: 1.39x; at 768 the smooth route won, 0.17x)
+    assert regions.melspec_region_ok(2048, 512, False) and regions.melspec_region_ok(768, 192, False)
+    assert regions.melspec_region_ok(1920, 480, False) and not regions.melspec_region_ok(896, 224, False)
+    assert regions.melspec_region_ok(896, 224, True)                             # A factored: 0.51x
+    assert regions.repr_region_ok(768, 192, False, "if") and regions.repr_region_ok(896, 224, False, "if")
     assert not regions.repr_region_ok(768, 192, False, "phase") and regions.repr_region_ok(768, 192, True, "phase")
     assert regions.repr_region_ok(512, 128, True, "imag") and regions.repr_region_ok(4096, 1024, False, "imag")
-    assert regions.mfcc_region_ok(1024, 256) and regions.mfcc_region_ok(768, 192)
+    assert regions.mfcc_region_ok(1024, 256) and regions.mfcc_region_ok(768, 192) and regions.mfcc_region_ok(896, 224)
     assert not regions.mfcc_region_ok(8192, 2048)
     assert regions.fit_fullk_region_ok(4096) and regions.fit_fullk_region_ok(64)
-    assert not regions.fit_fullk_region_ok(768) and not regions.fit_fullk_region_ok(8192)
+    assert regions.fit_fullk_region_ok(768) and not regions.fit_fullk_region_ok(896)
+    assert not regions.fit_fullk_region_ok(8192)
+    assert regions.fit_fullk_region_ok(768, two_channel=True) and regions.fit_fullk_region_ok(896, two_channel=True)
 
 
 def _fuse_chains(n_fft, hop):
@@ -243,10 +259,11 @@ def _fuse_chains(n_fft, hop):
 
 @pytest.mark.parametrize("n_fft,hop,expected", [
     (1024, 256, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_fullk", "phase_taps", "mfcc"}),
-    (768, 192, {"melspec_taps", "if_fullk", "phase_taps", "mfcc"}),
+    (768, 192, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_taps", "mfcc"}),
+    (896, 224, {"melspec_taps", "if_fullk", "phase_taps", "mfcc"}),
     (2048, 256, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_fullk", "phase_taps", "mfcc"}),
     (128, 32, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_fullk", "phase_taps", "mfcc"}),
-    (64, 32, {"melspec_fullk", "if_fullk"}),
+    (64, 32, {"melspec_fullk", "if_fullk", "mfcc"}),      # MFCC 0.96x at 64/32 (1.05x in the sweep before)
 ])
 def test_fuse_auto_decisions(n_fft, hop, expected):
     """``auto`` takes the kernel on a CUDA input exactly inside the regions;
@@ -276,14 +293,109 @@ def test_fuse_auto_consults_regions(monkeypatch):
 
 
 def test_fit_fullk_region_consults_regions():
-    """A gaussian chain fits on the kernel up to 4096 on the FFT route; at
-    768 (the product route lost, 1.20x) and 8192 ``auto`` runs
-    ``chain.fit``; a window with taps fits on the kernel wherever it is
-    available."""
+    """A gaussian chain fits on the kernel up to 4096 on the FFT route and,
+    for the magnitude, the smooth route (768: 0.22x); at 896 (the product
+    route lost, 1.14x) and 8192 ``auto`` runs ``chain.fit``; PolarIF's fit
+    (H full-K) takes its product route at 896 (0.56x); a window with taps
+    fits on the kernel wherever it is available."""
     assert fuse._fit_region(PT.DGT(n_fft=2048, hop_length=512, device="cpu"))
-    assert not fuse._fit_region(PT.DGT(n_fft=768, hop_length=192, device="cpu"))
+    assert fuse._fit_region(PT.DGT(n_fft=768, hop_length=192, device="cpu"))
+    assert not fuse._fit_region(PT.DGT(n_fft=896, hop_length=224, device="cpu"))
+    assert fuse._fit_region(PT.DGT(n_fft=896, hop_length=224, device="cpu"), two_channel=True)
     assert not fuse._fit_region(PT.DGT(n_fft=8192, hop_length=2048, device="cpu"))
     assert fuse._fit_region(PT.STFT(n_fft=768, hop_length=192, device="cpu"))
+
+
+# ------------------------------------------------- the route rule of a region
+def _sweep_rows(shapes, **ratios):
+    """Sweep rows as ``tools/sweep_regions.py`` records them: every shape a
+    win (0.5) but the ``ratios`` given (keys ``s768`` for "768/192" ...)."""
+    out = {}
+    for n_fft, hop in shapes:
+        key = "%d/%d" % (n_fft, hop)
+        r = ratios.get("s%d" % n_fft if n_fft in (768, 896) else "", 0.5)
+        out[key] = {"kernel_ms": r, "eager_ms": 1.0, "ratio": r}
+    return out
+
+
+def _with_table(monkeypatch, fuse_forward=None, fuse_fit=None):
+    t = json.loads(json.dumps(regions.table()))
+    t["fuse_forward"].update(fuse_forward or {})
+    t["fuse_fit"].update(fuse_fit or {})
+    monkeypatch.setattr(regions, "table", lambda: t)
+    return t
+
+
+def test_region_admits_a_route_only_where_a_point_of_it_won(monkeypatch):
+    """768/192 measures the smooth route of the log-mel and MFCC kernels,
+    896/224 their factored / product front end: a sweep where 768 wins and
+    896 loses admits 768 and refuses 896, and the other way round."""
+    from acids_transforms_tpu_torch.tools import sweep_regions as tool
+
+    win768 = _sweep_rows(tool.SHAPES, s768=0.6, s896=1.4)
+    win896 = _sweep_rows(tool.SHAPES, s768=1.3, s896=0.8)
+    kinds = ("melspec_taps", "melspec_fullk", "mfcc")
+    a = {k: tool.shape_region(win768, "NVIDIA H100 80GB HBM3, 700.00 W", k, k) for k in kinds}
+    assert a["melspec_fullk"]["routes"] == ["fft", "smooth"] and a["melspec_taps"]["routes"] == ["fft", "smooth"]
+    assert "896/224" in a["mfcc"]["_why"] and a["mfcc"]["routes"] == ["fft", "smooth"]
+    _with_table(monkeypatch, fuse_forward=a)
+    for taps in (False, True):
+        assert regions.melspec_region_ok(768, 192, taps) and regions.melspec_region_ok(768, 256, taps)
+        assert regions.melspec_region_ok(640, 160, taps) and regions.melspec_region_ok(1024, 256, taps)
+        assert not regions.melspec_region_ok(896, 224, taps)
+    assert regions.mfcc_region_ok(768, 192) and not regions.mfcc_region_ok(896, 224)
+    chains = {n: _fuse_chains(n, n // 4) for n in (768, 896)}
+    assert fuse._kernel_preferred(chains[768]["melspec_fullk"]) and fuse._kernel_preferred(chains[768]["mfcc"])
+    assert not fuse._kernel_preferred(chains[896]["melspec_fullk"])
+    b = {k: tool.shape_region(win896, "NVIDIA H100 80GB HBM3, 700.00 W", k, k) for k in kinds}
+    assert b["melspec_fullk"]["routes"] == ["fft", "product"] and b["melspec_taps"]["routes"] == ["fft", "factored"]
+    _with_table(monkeypatch, fuse_forward=b)
+    for taps in (False, True):
+        assert not regions.melspec_region_ok(768, 192, taps) and regions.melspec_region_ok(896, 224, taps)
+
+
+def test_repr_regions_read_their_own_768_point(monkeypatch):
+    """G and H have no smooth route: 768/192 and 896/224 both measure their
+    factored / product front end, admitted only where both won; the smooth
+    route of a log-mel region never reaches a representation."""
+    from acids_transforms_tpu_torch.tools import sweep_regions as tool
+
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+    one = _sweep_rows(tool.SHAPES, s768=0.6, s896=1.4)
+    both = _sweep_rows(tool.SHAPES, s768=0.6, s896=0.7)
+    assert tool.shape_region(one, card, "w", "repr_if_fullk")["routes"] == ["fft"]
+    assert tool.shape_region(both, card, "w", "repr_if_fullk")["routes"] == ["fft", "product"]
+    assert tool.shape_region(both, card, "w", "repr_phase_taps")["routes"] == ["fft", "factored"]
+    assert regions.kernel_route(768, True, smooth=False) == "factored"
+    assert regions.kernel_route(768, False, smooth=True) == "smooth"
+    _with_table(monkeypatch, fuse_forward={
+        "melspec_fullk": tool.shape_region(one, card, "w", "melspec_fullk"),
+        "repr_if": {"taps": tool.shape_region(both, card, "w", "repr_if_taps"),
+                    "fullk": tool.shape_region(one, card, "w", "repr_if_fullk")}})
+    assert regions.melspec_region_ok(768, 256, False)
+    assert not regions.repr_region_ok(768, 256, False, "if") and regions.repr_region_ok(1024, 256, False, "if")
+    assert regions.repr_region_ok(768, 192, True, "if") and regions.repr_region_ok(896, 224, True, "if")
+
+
+def test_fit_region_follows_the_route_rule(monkeypatch):
+    """The full-K fit admits a route per family by the same rule: F (the
+    magnitude) the smooth route where its 768 point won, H full-K the
+    product route where both its 768 and 896 points won."""
+    from acids_transforms_tpu_torch.tools import sweep_regions as tool
+
+    fit = {"fit_melspec_fullk": _sweep_rows(tool.FIT_SHAPES, s768=0.6, s896=1.4),
+           "fit_repr_if_fullk": _sweep_rows(tool.FIT_SHAPES, s768=0.6, s896=1.2)}
+    sec = tool.fit_section(fit, "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert sec["fullk_n_fft_max"] == 4096
+    assert sec["melspec_fullk_routes"] == ["fft", "smooth"] and sec["repr_fullk_routes"] == ["fft"]
+    _with_table(monkeypatch, fuse_fit=sec)
+    assert regions.fit_fullk_region_ok(768) and regions.fit_fullk_region_ok(1920)
+    assert not regions.fit_fullk_region_ok(896) and not regions.fit_fullk_region_ok(8192)
+    assert not regions.fit_fullk_region_ok(768, two_channel=True)
+    assert regions.fit_fullk_region_ok(1024, two_channel=True)
+    dgt = PT.DGT(n_fft=768, hop_length=192, device="cpu")
+    assert fuse._fit_region(dgt) and not fuse._fit_region(dgt, two_channel=True)
+    assert fuse._fit_region(PT.STFT(n_fft=896, hop_length=224, device="cpu"), two_channel=True)
 
 
 # -------------------------------------------------- live-dispatch coherence
