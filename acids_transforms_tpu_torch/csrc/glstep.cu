@@ -5,8 +5,11 @@
 //   gl_step_kernel, chain >= 2  <- _gl_kernel_momentum_chain  (via _gl_call, iters=k)
 //   gl_step_kernel, project     <- _gl_kernel                 (via gl_project): the
 //                                  consistency projection alone, no momentum
-//   gl_step_fft_kernel          <- the same three where n_fft is a power of two
+//   gl_step_fft_kernel<false>   <- the same three where n_fft is a power of two
 //                                  from 64 to 4096 (the FFT route, below)
+//   gl_step_fft_kernel<true>    <- the same three where n_fft is even,
+//                                  2^a 3^b 5^c, 64 to 4096, no power of two
+//                                  (the smooth route, below)
 //
 // One iteration: Y = taps_conv(mag * angles); D[c] = sum_j conj(tw_j) Y[c - j];
 // samples[c] = [Dre | Dim] @ [ICT; IST] / envelope[c]; C = samples @ [cos | -sin];
@@ -48,10 +51,12 @@
 // instruction-level parallelism only; chaining recomputes the halo, which
 // costs operations, the very thing this design is short of.
 //
-// Two routes, chosen by n_fft alone (fft_covers, as the wrapper's
-// glstep._step_plan): the chunk products above (gl_step_kernel) for every
-// n_fft that is no power of two from 64 to 4096 (768, 1200, 8192, ...), and
-// the FFT route (gl_step_fft_kernel) for those that are.  The FFT route:
+// Three routes, chosen by (n_fft, hop) alone (the wrapper's
+// glstep.gl_step_route): the FFT route (gl_step_fft_kernel<false>) where
+// n_fft is a power of two from 64 to 4096, the smooth route
+// (gl_step_fft_kernel<true>) where fft_covers_smooth(n_fft) (768, 1200, 640,
+// 1920, ...) and its block fits, the chunk products above (gl_step_kernel)
+// for every other n_fft (896, 8192, ...).  The FFT route:
 // * the same function, with the window in the time domain: frames_irfft of
 //   mag * angles under window / n_fft (fft_smem.cuh), then the overlap-add
 //   in class order, the envelope division, the in-place re-framing of the
@@ -79,6 +84,13 @@
 //   frames' synthesis done again by the neighbouring block.  Every operation
 //   is rounded on its own (__fmul_rn, ...), so the plain version
 //   (ops/cuda/glstep.py:_project_fft) repeats it.
+// The smooth route is the same kernel on fft_smem.cuh's mixed-radix
+// frames_irfft<true> / frames_rfft<true> (radix 5, 3, 4, 2 stages, out of
+// place between two buffer halves, teams of a power of two of threads),
+// its twiddles j < fft_smooth_table(n), and wsyn = window / n_fft rounded
+// once from float64 (frames_fft.irfft_window(smooth=True)); the pairing, the
+// leak, the envelope and the update are the FFT route's.  Plain version
+// _project_fft(..., smooth=True).
 #include <math.h>
 
 #include "dft_common.cuh"
@@ -407,12 +419,13 @@ struct GlFftArgs {
     float mom;
 };
 
-// The samples of tile_t + overlap - 1 chunks, frames_rfft's area (window,
-// twiddles, teams' buffers), the synthesis window, the leak table, and one
-// leak factor Im(Y_0) per synthesized frame.
+// The samples of tile_t + overlap - 1 chunks, frames_rfft's area on the
+// route n takes (window, twiddles, teams' buffers: fft_area_floats), the
+// synthesis window, the leak table, and one leak factor Im(Y_0) per
+// synthesized frame.
 __host__ __device__ inline size_t gl_fft_smem_floats(int tile_t, int overlap, int hop, int teams) {
     const int n = overlap * hop;
-    return (size_t)(tile_t + overlap - 1) * hop + fft_smem_floats(n, teams) + 2 * (size_t)n +
+    return (size_t)(tile_t + overlap - 1) * hop + fft_area_floats(n, teams) + 2 * (size_t)n +
            (size_t)tile_t + 2 * overlap;
 }
 
@@ -442,21 +455,23 @@ __device__ void gl_grid_sync(unsigned int* bar) {
     __syncthreads();
 }
 
-// C, D and I on the FFT route (see the note at the top).  Iteration it reads
-// the inputs (it = 0) or iteration it - 1's state and writes the outputs when
+// C, D and I on the FFT route (kSmooth = false) or the smooth route (kSmooth:
+// the mixed-radix stages; see the note at the top).  Iteration it reads the
+// inputs (it = 0) or iteration it - 1's state and writes the outputs when
 // chain - 1 - it is even, the scratch set otherwise; state written during the
 // launch is read with __ldcg (L2), never through L1 or the read-only path.
+template <bool kSmooth>
 __global__ void __launch_bounds__(kThreads, 2) gl_step_fft_kernel(GlFftArgs a) {
     extern __shared__ __align__(16) float smem[];
     const int T = a.T, F = a.F, hop = a.hop, ov = a.overlap;
     const int n = ov * hop;
     const int R = a.tile_t + ov - 1;  // chunks of samples a tile holds
     float* samples = smem;            // [R][hop]
-    const FftSmem fs = carve_fft(samples + (size_t)R * hop, n);
-    float* wsyn = fs.buf + (size_t)a.teams * fft_buf_floats(n);
+    const FftSmem fs = carve_fft<kSmooth>(samples + (size_t)R * hop, n);
+    float* wsyn = fs.buf + (size_t)a.teams * fft_buf_floats_of<kSmooth>(n);
     float* leak = wsyn + n;
     float* lam = leak + n;            // [tile_t + 2 overlap]
-    fft_stage(a.win, a.fft_tw, fs, n);
+    fft_stage<kSmooth>(a.win, a.fft_tw, fs, n);
     for (int i = threadIdx.x; i < n; i += kThreads) {
         wsyn[i] = __ldg(a.wsyn + i);
         leak[i] = __ldg(a.leak + i);
@@ -487,7 +502,7 @@ __global__ void __launch_bounds__(kThreads, 2) gl_step_fft_kernel(GlFftArgs a) {
                 lam[r] = f >= 0 ? __fmul_rn(__ldg(a.mag + o), __ldcg(s_aim + o)) : 0.0f;
             }
             // frames_irfft starts with a barrier and ends with one
-            frames_irfft(
+            frames_irfft<kSmooth>(
                 n_fr, ov, n, fs, wsyn, a.teams,
                 [&](int r, int k, float& re, float& im) {
                     const int f = f0 + r;
@@ -514,7 +529,7 @@ __global__ void __launch_bounds__(kThreads, 2) gl_step_fft_kernel(GlFftArgs a) {
                 if (c < T + ov - 1) samples[i] = __fdiv_rn(samples[i], __ldg(a.env + (size_t)c * hop + (i - q * hop)));
             }
             // frames_rfft starts with a barrier and ends with one
-            frames_rfft(samples, min(a.tile_t, T - t0), hop, n, fs, a.teams,
+            frames_rfft<kSmooth>(samples, min(a.tile_t, T - t0), hop, n, fs, a.teams,
                         [&](int r, int k, float r_re, float r_im) {
                             const size_t o = bofs + (size_t)(t0 + r) * F + k;
                             d_rre[o] = r_re;
@@ -533,6 +548,36 @@ __global__ void __launch_bounds__(kThreads, 2) gl_step_fft_kernel(GlFftArgs a) {
         s_tre = d_rre;
         s_tim = d_rim;
     }
+}
+
+// One launch of the route's instance: chain 1 a block a tile, a chain one
+// cooperative launch of at most the blocks the card holds at once, sized by
+// this instance's own occupancy (the grid barrier needs every block
+// resident).
+template <bool kSmooth>
+static cudaError_t gl_fft_launch(GlFftArgs a, size_t smem, cudaStream_t s) {
+    const void* fn = (const void*)gl_step_fft_kernel<kSmooth>;
+    cudaError_t err = cudaFuncSetAttribute(gl_step_fft_kernel<kSmooth>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const long long n_work = a.B * a.n_tiles;
+    if (a.chain == 1) {
+        gl_step_fft_kernel<kSmooth><<<(unsigned)n_work, kThreads, smem, s>>>(a);
+        return cudaGetLastError();
+    }
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gl_step_fft_kernel<kSmooth>, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    const long long resident = (long long)per_sm * sms;
+    const unsigned grid = (unsigned)(n_work < resident ? n_work : resident);
+    if ((err = cudaMemsetAsync(a.barrier, 0, 2 * sizeof(unsigned int), s)) != cudaSuccess) return err;
+    void* params[] = {&a};
+    err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), params, smem, s);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
 }
 
 }  // namespace att
@@ -602,19 +647,22 @@ int att_gl_project(const float* mag, const float* are, const float* aim, const f
                      nullptr, stream);
 }
 
-// Shared memory of one block of the FFT route: tile_t frames, `teams` FFTs
-// side by side.
+// Shared memory of one block of the FFT or the smooth route (the one n_fft =
+// overlap hop takes): tile_t frames, `teams` FFTs side by side.
 long long att_gl_fft_smem_bytes(int tile_t, int overlap, int hop, int teams) {
     return (long long)(att::gl_fft_smem_floats(tile_t, overlap, hop, teams) * sizeof(float));
 }
 
 // Kernels C (chain 1), D (chain >= 2) and I (project = 1, chain 1) on the FFT
-// route.  Spectrogram arrays (B, T, F) float32 contiguous, outputs not
-// aliasing inputs; env (T + overlap - 1, hop); n_fft = overlap hop a power of
-// two from 64 to 4096, F = n_fft / 2 + 1; window, wsyn and leak (n_fft,) (the
-// window, the window / n_fft, -(2 / n_fft) sum_{p >= 1} taps[p] sin(2 pi p i /
-// n_fft)), fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft); 1 <= teams <= 4096
-// / n_fft; tile_t a multiple of 2 overlap.  chain >= 2 needs scratch (4, B,
+// route, or on the smooth route where fft_covers_smooth(n_fft).  Spectrogram
+// arrays (B, T, F) float32 contiguous, outputs not aliasing inputs; env (T +
+// overlap - 1, hop); n_fft = overlap hop a power of two from 64 to 4096 (1 <=
+// teams <= 4096 / n_fft) or even, 2^a 3^b 5^c, 64 to 4096 (1 <= teams <=
+// fft_smooth_max_teams(n_fft)), F = n_fft / 2 + 1; window, wsyn and leak
+// (n_fft,) (the window, the window / n_fft (frames_fft.irfft_window; on the
+// smooth route rounded once from float64), -(2 / n_fft) sum_{p >= 1} taps[p]
+// sin(2 pi p i / n_fft)), fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft);
+// tile_t a multiple of 2 overlap.  chain >= 2 needs scratch (4, B,
 // T, F) and barrier (two unsigned ints, zeroed here on the stream) and is a
 // cooperative launch of at most as many blocks as the card holds at once.
 // project = 1: tre, tim, nare and naim are not used.  Returns a cudaError_t.
@@ -626,8 +674,10 @@ int att_gl_step_fft(const float* mag, const float* are, const float* aim, const 
                     unsigned int* barrier, void* stream) {
     using namespace att;
     const int n_fft = overlap * hop;
-    if (B < 1 || T < 1 || overlap < 2 || !fft_covers(n_fft) || F != n_fft / 2 + 1 || teams < 1 ||
-        teams > fft_max_teams(n_fft) || tile_t < 1 || tile_t % (2 * overlap) != 0 || chain < 1 ||
+    const bool smooth = !fft_covers(n_fft);
+    const int max_teams = smooth ? fft_smooth_max_teams(n_fft) : fft_max_teams(n_fft);
+    if (B < 1 || T < 1 || overlap < 2 || (smooth && !fft_covers_smooth(n_fft)) || F != n_fft / 2 + 1 ||
+        teams < 1 || teams > max_teams || tile_t < 1 || tile_t % (2 * overlap) != 0 || chain < 1 ||
         (chain >= 2 && (scratch == nullptr || barrier == nullptr)) || (project && chain != 1)) {
         return (int)cudaErrorInvalidValue;
     }
@@ -639,29 +689,8 @@ int att_gl_step_fft(const float* mag, const float* are, const float* aim, const 
     a.n_tiles = (T + tile_t - 1) / tile_t; a.teams = teams; a.chain = chain; a.project = project;
     a.mom = mom;
     const size_t smem = gl_fft_smem_floats(tile_t, overlap, hop, teams) * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(gl_step_fft_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const long long n_work = B * a.n_tiles;
     cudaStream_t s = (cudaStream_t)stream;
-    if (chain == 1) {
-        gl_step_fft_kernel<<<(unsigned)n_work, kThreads, smem, s>>>(a);
-        return (int)cudaGetLastError();
-    }
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gl_step_fft_kernel, kThreads, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    const long long resident = (long long)per_sm * sms;
-    const unsigned grid = (unsigned)(n_work < resident ? n_work : resident);
-    if ((err = cudaMemsetAsync(barrier, 0, 2 * sizeof(unsigned int), s)) != cudaSuccess) return (int)err;
-    void* params[] = {&a};
-    err = cudaLaunchCooperativeKernel((const void*)gl_step_fft_kernel, dim3(grid), dim3(kThreads), params,
-                                      smem, s);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    return (int)(smooth ? gl_fft_launch<true>(a, smem, s) : gl_fft_launch<false>(a, smem, s));
 }
 
 }  // extern "C"

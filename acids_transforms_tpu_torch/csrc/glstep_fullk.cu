@@ -1,7 +1,8 @@
 // Full-K momentum Griffin-Lim step for any window, one kernel, for Hopper (sm_90a).
 //
 // Replaces, from the JAX package's ops/pallas/glstep.py:
-//   gl_fullk_kernel  <- _gl_kernel_fullk_momentum  (via _gl_fullk_call /
+//   gl_fullk_kernel, gl_fullk_fft_kernel<false / true>
+//                    <- _gl_kernel_fullk_momentum  (via _gl_fullk_call /
 //                       make_gl_momentum_step_fullk)
 //
 // One iteration for a window without cosine-sum taps (the DGT's gaussian):
@@ -22,16 +23,21 @@
 //
 // What bounds it on this card: the function is bound by bytes (9 float
 // arrays of F values per frame) against an inverse and a forward FFT per
-// frame.  Two routes, chosen by n_fft alone (fft_covers, as the wrapper's
+// frame.  Three routes, chosen by (n_fft, hop) alone (the wrapper's
 // glstep._fullk_plan):
-// * the FFT route (gl_fullk_fft_kernel, a power of two from 64 to 4096):
-//   fft_smem.cuh's frames_irfft for the synthesis and frames_rfft for the
-//   analysis, an FFT's operations a frame; the samples of the block and the
-//   FFT area take 109 KB at 1024/256 (56 frames a block), so two blocks
+// * the FFT route (gl_fullk_fft_kernel<false>, a power of two from 64 to
+//   4096): fft_smem.cuh's frames_irfft for the synthesis and frames_rfft for
+//   the analysis, an FFT's operations a frame; the samples of the block and
+//   the FFT area take 109 KB at 1024/256 (56 frames a block), so two blocks
 //   share an SM.  What holds it back: shared-memory passes and barriers, and
 //   the halo frames' synthesis done again by the neighbouring block (64
 //   frames synthesized for 56);
-// * the product route (gl_fullk_kernel, every other n_fft: 768, 8192, ...)
+// * the smooth route (gl_fullk_fft_kernel<true>, n_fft even, 2^a 3^b 5^c,
+//   64 to 4096, no power of two: 768, 1200, 1920, ...; where its block
+//   fits): the same kernel on the mixed-radix frames_irfft<true> /
+//   frames_rfft<true> (radix 5, 3, 4, 2 stages, out of place), twiddles j <
+//   fft_smooth_table(n), wsyn = window / n_fft rounded once from float64;
+// * the product route (gl_fullk_kernel, every other n_fft: 896, 8192, ...)
 //   keeps the TPU kernel's two full-length products, 2 * n_fft * F
 //   multiply-adds per frame for the synthesis and as many for the analysis
 //   (2.1 M at n_fft 1024), about 230 flop per byte, so its own ceiling is the
@@ -212,14 +218,17 @@ __global__ void __launch_bounds__(kThreads) gl_fullk_kernel(GlFullkArgs a) {
     }
 }
 
-// The FFT route's shared memory: the samples of `rows` chunks, frames_rfft's
-// area (window, twiddles, teams' buffers) and the synthesis window.
+// The FFT or the smooth route's shared memory: the samples of `rows` chunks,
+// frames_rfft's area on the route n takes (window, twiddles, teams'
+// buffers) and the synthesis window.
 __host__ __device__ inline size_t gl_fullk_fft_smem_floats(int rows, int hop, int n, int teams) {
-    return (size_t)rows * hop + fft_smem_floats(n, teams) + (size_t)n;
+    return (size_t)rows * hop + fft_area_floats(n, teams) + (size_t)n;
 }
 
-// J on the FFT route (n_fft = overlap hop a power of two from 64 to 4096): a
-// block owns one batch row and the tile_t frames t0 .. (tile_t a multiple of
+// J on the FFT route (n_fft = overlap hop a power of two from 64 to 4096), or
+// with kSmooth on the smooth route (fft_covers_smooth(n_fft): the
+// mixed-radix stages, wsyn's 1 / n fold rounded once): a block owns one
+// batch row and the tile_t frames t0 .. (tile_t a multiple of
 // 2 overlap), its samples the rows = tile_t + overlap chunks c0 = t0 - 1 ...
 // Synthesis: frames_irfft of the frames t0 - overlap .. t0 + tile_t + overlap
 // - 1 (pairs (f, f + overlap) for f mod 2 overlap >= overlap: the session-wide
@@ -231,24 +240,25 @@ __host__ __device__ inline size_t gl_fullk_fft_smem_floats(int rows, int hop, in
 // (2j, 2j + 1): t0 is even) with the momentum update as its emit.  Every
 // operation is rounded on its own (__fmul_rn, ...), so that the plain version
 // (ops/cuda/glstep.py:gl_momentum_step_fullk_reference) repeats it.
+template <bool kSmooth>
 __global__ void __launch_bounds__(kThreads, 2) gl_fullk_fft_kernel(GlFullkArgs a) {
     extern __shared__ __align__(16) float smem[];
     const int R = a.rows, T = a.T, F = a.F, hop = a.hop, ov = a.overlap;
     const int n = ov * hop;
     float* samples = smem;  // [R][hop]
-    const FftSmem fs = carve_fft(samples + (size_t)R * hop, n);
-    float* wsyn = fs.buf + (size_t)a.teams * fft_buf_floats(n);
+    const FftSmem fs = carve_fft<kSmooth>(samples + (size_t)R * hop, n);
+    float* wsyn = fs.buf + (size_t)a.teams * fft_buf_floats_of<kSmooth>(n);
     const long long blk = blockIdx.x;
     const long long b = blk / a.n_tiles;
     const int t0 = (int)(blk - b * a.n_tiles) * a.tile_t;
     const int c0 = t0 - 1;  // chunk of sample buffer row 0
     const size_t bofs = (size_t)b * T * F;
-    fft_stage(a.win, a.fft_tw, fs, n);
+    fft_stage<kSmooth>(a.win, a.fft_tw, fs, n);
     for (int i = threadIdx.x; i < n; i += kThreads) wsyn[i] = __ldg(a.wsyn + i);
     for (int i = threadIdx.x; i < R * hop; i += kThreads) samples[i] = 0.0f;
     // local frame r is frame t0 - overlap + r; frames_irfft starts with a barrier
     const int f0 = t0 - ov;
-    frames_irfft(
+    frames_irfft<kSmooth>(
         min(a.tile_t + 2 * ov, T - f0), ov, n, fs, wsyn, a.teams,
         [&](int r, int k, float& re, float& im) {
             const int f = f0 + r;
@@ -270,7 +280,7 @@ __global__ void __launch_bounds__(kThreads, 2) gl_fullk_fft_kernel(GlFullkArgs a
     gl_fullk_boundary(samples, a, R, c0);
     // frames_rfft starts with a barrier
     const float mom = a.mom;
-    frames_rfft(samples + hop, min(a.tile_t, T - t0), hop, n, fs, a.teams,
+    frames_rfft<kSmooth>(samples + hop, min(a.tile_t, T - t0), hop, n, fs, a.teams,
                 [&](int r, int k, float r_re, float r_im) {
                     const size_t o = bofs + (size_t)(t0 + r) * F + k;
                     const float ure = __fsub_rn(r_re, __fmul_rn(mom, __ldg(a.tre + o)));
@@ -299,8 +309,8 @@ long long att_gl_fullk_smem_bytes(int rows, int overlap, int hop, int Ks) {
     return (long long)(att::gl_fullk_smem_floats(rows, overlap, hop, Ks) * sizeof(float));
 }
 
-// Shared memory of one block of the FFT route computing `rows` chunks with
-// `teams` FFTs side by side.
+// Shared memory of one block of the FFT or the smooth route (the one n_fft
+// takes) computing `rows` chunks with `teams` FFTs side by side.
 long long att_gl_fullk_fft_smem_bytes(int rows, int hop, int n_fft, int teams) {
     return (long long)(att::gl_fullk_fft_smem_floats(rows, hop, n_fft, teams) * sizeof(float));
 }
@@ -308,9 +318,11 @@ long long att_gl_fullk_fft_smem_bytes(int rows, int hop, int n_fft, int teams) {
 // Kernel J.  Spectrogram arrays (B, T, F) float32 contiguous, outputs not
 // aliasing inputs; env (T + overlap - 1, hop); hop a multiple of 32; T >= 2.
 // teams > 0 selects the FFT route: n_fft = overlap hop a power of two from 64
-// to 4096, window and wsyn (n_fft,) (the window, and the window / n_fft),
-// fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft), 1 <= teams <= 4096 / n_fft,
-// tile_t a multiple of 2 overlap and rows = tile_t + overlap; syn, wc, ws,
+// to 4096 (1 <= teams <= 4096 / n_fft), or the smooth route where
+// fft_covers_smooth(n_fft) (1 <= teams <= fft_smooth_max_teams(n_fft)),
+// window and wsyn (n_fft,) (the window, and the window / n_fft: on the smooth
+// route rounded once from float64), fft_tw (2, n_fft) = (cos, -sin)(2 pi j /
+// n_fft), tile_t a multiple of 2 overlap and rows = tile_t + overlap; syn, wc, ws,
 // Kp and Ks are not read.  teams == 0 selects the product route: syn
 // (overlap, Kp, hop) with Kp a multiple of 32, Kp >= 2F; wc / ws (overlap *
 // hop, F); rows chunks per block (overlap + 2 <= rows <= 32), tile_t <=
@@ -327,8 +339,10 @@ int att_gl_fullk_step(const float* mag, const float* are, const float* aim, cons
     using namespace att;
     const int n_fft = overlap * hop;
     const bool fft = teams > 0;
+    const bool smooth = fft && !fft_covers(n_fft);
+    const int max_teams = smooth ? fft_smooth_max_teams(n_fft) : fft_max_teams(n_fft);
     if (B < 1 || T < 2 || overlap < 2 || hop % kKC != 0 || tile_t < 1 ||
-        (fft && (!fft_covers(n_fft) || F != n_fft / 2 + 1 || teams > fft_max_teams(n_fft) ||
+        (fft && ((smooth && !fft_covers_smooth(n_fft)) || F != n_fft / 2 + 1 || teams > max_teams ||
                  tile_t % (2 * overlap) != 0 || rows != tile_t + overlap)) ||
         (!fft && (Kp % kSynKC != 0 || Kp < 2 * F || tile_t > kRowGroup || tile_t + overlap > rows ||
                   Ks < kSynKC || Ks > Kp || Ks % kSynKC != 0 || rows < overlap + 2 || rows > 32))) {
@@ -349,9 +363,15 @@ int att_gl_fullk_step(const float* mag, const float* are, const float* aim, cons
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
     if (fft) {
-        err = gl_fullk_allow_smem(gl_fullk_fft_kernel, smem);
-        if (err != cudaSuccess) return (int)err;
-        gl_fullk_fft_kernel<<<grid, kThreads, smem, s>>>(a);
+#define ATT_LAUNCH_GLFKF(SMOOTH)                                            \
+    do {                                                                    \
+        err = gl_fullk_allow_smem(gl_fullk_fft_kernel<SMOOTH>, smem);       \
+        if (err != cudaSuccess) return (int)err;                            \
+        gl_fullk_fft_kernel<SMOOTH><<<grid, kThreads, smem, s>>>(a);        \
+    } while (0)
+        if (smooth) ATT_LAUNCH_GLFKF(true);
+        else ATT_LAUNCH_GLFKF(false);
+#undef ATT_LAUNCH_GLFKF
         return (int)cudaGetLastError();
     }
 #define ATT_LAUNCH_GLFK(RPT)                                                \

@@ -13,13 +13,13 @@ representation front ends (E, F, G, H) run the forward; K's synthesis the
 inverse; the full-K Griffin-Lim step (J) both; the streaming roundtrips (L,
 M) both in one team (``frames_roundtrip``), wherever :func:`fft_covers`
 takes ``n_fft``.  R, N's encode, L, M, the streaming decodes (P, S, O's
-projection synthesis) and the full-K melspec forward and fit (E, F, and so
-A and B under the taps' own window) also take the mixed-radix schedule
-wherever :func:`fft_covers_smooth` takes ``n_fft`` (even, ``2^a 3^b 5^c``, 64
-to 4096, not a power of two: 1200, 960, 768, 400, 1920, ...); every other
-``n_fft`` keeps the window-folded products of ``dft_common.cuh`` and
-``synth_ola.cuh`` (and A and B their factored front end).
-The rules read ``n_fft`` alone.
+projection synthesis), the full-K melspec forward and fit (E, F, and so
+A and B under the taps' own window) and the Griffin-Lim steps (J, C, D, I)
+also take the mixed-radix schedule wherever :func:`fft_covers_smooth` takes
+``n_fft`` (even, ``2^a 3^b 5^c``, 64 to 4096, not a power of two: 1200, 960,
+768, 400, 1920, ...; the Griffin-Lim steps where their block fits too);
+every other ``n_fft`` keeps the window-folded products of ``dft_common.cuh``
+and ``synth_ola.cuh`` (and A and B their factored front end).
 
 The schedule, which :func:`frames_rfft_reference` and
 :func:`frames_irfft_reference` repeat step for step:
@@ -71,7 +71,7 @@ __all__ = [
     "fft_smem_floats", "frames_rfft_reference", "frames_irfft_reference", "irfft_window",
     "overlap_add_classes", "class_plan", "taps_window", "fft_covers_smooth", "fft_radices",
     "fft_smooth_team_threads", "fft_smooth_max_teams", "fft_smooth_table", "fft_smooth_smem_floats",
-    "SMOOTH_CONSTANTS", "class_plan_smooth",
+    "SMOOTH_CONSTANTS", "class_plan_smooth", "fft_area_floats",
 ]
 
 FFT_MIN, FFT_MAX = 64, 4096       # the sizes frames_rfft takes (powers of two)
@@ -84,8 +84,8 @@ TWO_BLOCKS_SMEM = SM_SMEM // 2 - 1024   # a block's share when two run on one SM
 
 def fft_covers(n_fft: int) -> bool:
     """Whether the FFT route takes ``n_fft``: a power of two from 64 to 4096.
-    Elsewhere G, H, J, K's synthesis, C, D, I and O's polish run their
-    product routes; R, L, M, the decodes, E and F (with A and B) take the
+    Elsewhere G, H, K's synthesis and O's polish run their product routes;
+    R, L, M, the decodes, E and F (with A and B), J, C, D and I take the
     smooth route where :func:`fft_covers_smooth` does, and the products
     (A and B the factored front end) at every other ``n_fft``."""
     n = int(n_fft)
@@ -96,10 +96,11 @@ def fft_covers_smooth(n_fft: int) -> bool:
     """Whether the mixed-radix route takes ``n_fft``: even, ``2^a 3^b 5^c``
     (``a >= 1``), from 64 to 4096, and not a power of two (those keep
     :func:`fft_covers`'s schedule).  R, the magnitude encode, L, M, the
-    streaming decodes (P, S, O's projection synthesis) and the full-K
-    melspec forward and fit E and F (so A and B, under the taps' own
-    window) take it; every other kernel (G, H, J, K's synthesis, C, D, I,
-    O's polish and analysis) runs its product route there."""
+    streaming decodes (P, S, O's projection synthesis), the full-K melspec
+    forward and fit E and F (so A and B, under the taps' own window) and the
+    Griffin-Lim steps J, C, D and I (where their block fits) take it; every
+    other kernel (G, H, K's synthesis, O's polish and analysis) runs its
+    product route there."""
     n = int(n_fft)
     if not FFT_MIN <= n <= FFT_MAX or n % 2 or n & (n - 1) == 0:
         return False
@@ -228,6 +229,14 @@ def fft_smem_floats(n_fft: int, teams: int) -> int:
     return n_fft + 2 * (3 * n_fft // 4) + teams * (2 * n_fft + n_fft // 32)
 
 
+def fft_area_floats(n_fft: int, teams: int) -> int:
+    """``frames_rfft``'s area on the route ``n_fft`` takes, as the kernels'
+    blocks lay it out (``csrc/fft_smem.cuh:fft_area_floats``): the FFT
+    route's (:func:`fft_smem_floats`), else the smooth one's
+    (:func:`fft_smooth_smem_floats`)."""
+    return fft_smem_floats(n_fft, teams) if fft_covers(n_fft) else fft_smooth_smem_floats(n_fft, teams)
+
+
 def class_plan(n_fft: int, hop: int, smem_bytes: Callable[[int, int], int],
                analysis_pairs: Optional[Callable[[int], int]] = None,
                widest: int = 64) -> Optional[Tuple[int, int]]:
@@ -258,13 +267,17 @@ def class_plan(n_fft: int, hop: int, smem_bytes: Callable[[int, int], int],
 
 
 def class_plan_smooth(n_fft: int, hop: int, smem_bytes: Callable[[int, int], int],
-                      widest: int = 64, blocks: int = 2) -> Optional[Tuple[int, int]]:
+                      widest: int = 64, blocks: int = 2,
+                      analysis_pairs: Optional[Callable[[int], int]] = None) -> Optional[Tuple[int, int]]:
     """:func:`class_plan` of the mixed-radix route: ``(rows, teams)`` over
     every power of two of teams up to :func:`fft_smooth_max_teams` and every
     multiple of ``2 overlap`` up to ``widest``, the most chunks per round of
-    pair FFTs times the blocks an SM holds (as many as its shared memory
-    takes at ``smem_bytes(rows, teams)`` a block, 1 KB reserved each, at most
-    ``blocks``: what the kernel's registers allow), ties to the taller block.
+    pair FFTs (the synthesis's ``overlap`` classes, plus
+    ``analysis_pairs(rows)`` pairs of a separate analysis where given: the
+    Griffin-Lim steps run one after their synthesis) times the blocks an SM
+    holds (as many as its shared memory takes at ``smem_bytes(rows, teams)``
+    a block, 1 KB reserved each, at most ``blocks``: what the kernel's
+    registers allow), ties to the taller block.
     A sweep of every plan at 1200/300, 960/240, 768/192, 400/100 and 1920/480
     (on an H100) found the largest rows of the most teams a bad rule there:
     fewer teams leave room for taller blocks (L: 24 chunks of 2 FFTs at
@@ -281,6 +294,8 @@ def class_plan_smooth(n_fft: int, hop: int, smem_bytes: Callable[[int, int], int
             if b > MAX_SMEM:
                 break
             rounds = ov * -(-(rows // (2 * ov) + 1) // teams)
+            if analysis_pairs is not None:
+                rounds += -(-analysis_pairs(rows) // teams)
             s = min(blocks, SM_SMEM // (b + 1024)) * rows / rounds
             if s >= score:
                 best, score = (rows, teams), s

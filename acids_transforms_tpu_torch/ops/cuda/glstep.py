@@ -31,14 +31,18 @@ accordingly, in the first and last frame only.
 On CUDA tensors the step launches ``csrc/glstep.cu`` (or raises); on CPU
 tensors it runs :func:`gl_momentum_step_reference`, the plain PyTorch version.
 ``gl_project`` is the projection alone (kernel I, the same source without the
-momentum update).  Two routes, chosen by ``n_fft`` alone
-(``frames_fft.fft_covers``): where it is a power of two from 64 to 4096, the
-shared-memory FFT both ways (``gl_step_fft_kernel``: ``frames_irfft`` under
-the window over ``n_fft``, the overlap-add in class order, the envelope, the
-in-place re-framing, ``frames_rfft`` under the window; a chain is one
-cooperative launch with a barrier across the grid between iterations), with
-the window in the time domain, so the edge samples lose the amplified
-rounding described above; elsewhere the chunk products.  The window of the
+momentum update).  Three routes, chosen by ``(n_fft, hop)`` alone
+(:func:`gl_step_route`): where ``n_fft`` is a power of two from 64 to 4096
+(``frames_fft.fft_covers``), the shared-memory FFT both ways
+(``gl_step_fft_kernel<false>``: ``frames_irfft`` under the window over
+``n_fft``, the overlap-add in class order, the envelope, the in-place
+re-framing, ``frames_rfft`` under the window; a chain is one cooperative
+launch with a barrier across the grid between iterations), with the window
+in the time domain, so the edge samples lose the amplified rounding
+described above; where ``frames_fft.fft_covers_smooth(n_fft)`` (even, ``2^a
+3^b 5^c``, no power of two: 768, 1200, 640, ...) and its block fits, the
+same kernel on the mixed-radix FFT (``gl_step_fft_kernel<true>``, the smooth
+route); elsewhere the chunk products.  The window of the
 FFT route is the taps' own (:func:`taps_window`), so both routes compute one
 function of the taps.  The taps conv reads the imaginary part of bin 0, which
 an inverse real FFT does not: the FFT route adds it back unwindowed to every
@@ -48,12 +52,13 @@ kernel's float32 operations in order.
 
 ``make_gl_momentum_step_fullk`` is the step for a window without cosine-sum
 taps (the DGT's gaussian, kernel J in ``csrc/glstep_fullk.cu``): every frame
-is synthesized on its own and overlap-added, then analysed again.  Two
-routes, chosen by ``n_fft`` alone (:func:`_fullk_plan`): where
+is synthesized on its own and overlap-added, then analysed again.  Three
+routes, chosen by ``(n_fft, hop)`` alone (:func:`_fullk_plan`): where
 ``frames_fft.fft_covers(n_fft)`` (a power of two from 64 to 4096) the
 shared-memory FFT both ways (``csrc/fft_smem.cuh``: ``frames_irfft``, then
-``frames_rfft``), elsewhere full-length inverse and forward DFT bases with
-the window folded in.  Its boundary rule is the eager loop's, not the
+``frames_rfft``), where ``fft_covers_smooth(n_fft)`` and its block fits the
+same on the mixed-radix FFT (the smooth route), elsewhere full-length
+inverse and forward DFT bases with the window folded in.  Its boundary rule is the eager loop's, not the
 one above: the overlap-add signal (envelope floored at ``eps^2``) is trimmed
 to the centre and reflect-padded again before it is re-framed, so every
 frame equals one ``istft`` + ``stft`` of the eager loop.  The JAX kernel it
@@ -84,8 +89,10 @@ from . import _build
 from .frames_fft import (
     MAX_SMEM,
     class_plan,
+    class_plan_smooth,
     fft_covers,
-    fft_smem_floats,
+    fft_covers_smooth,
+    fft_area_floats,
     fft_twiddles,
     frames_irfft_reference,
     frames_rfft_reference,
@@ -103,6 +110,7 @@ __all__ = [
     "gl_project",
     "gl_project_reference",
     "gl_max_chain",
+    "gl_step_route",
     "gl_fullk_available",
     "make_gl_momentum_step_fullk",
     "gl_momentum_step_fullk_reference",
@@ -118,13 +126,13 @@ MAX_OVERLAP = 8                   # halo rows per side the kernel's tiles hold
 launches: Dict[str, int] = {
     "gl_momentum_step": 0, "gl_momentum_chain": 0, "gl_project": 0, "gl_momentum_fullk": 0,
 }
-#: launches by route, ``"<kernel>:fft"`` / ``"<kernel>:product"`` (each also
-#: counts in ``launches``)
+#: launches by route, ``"<kernel>:fft"`` / ``"<kernel>:smooth"`` /
+#: ``"<kernel>:product"`` (each also counts in ``launches``)
 routes: Dict[str, int] = {
-    "gl_momentum_step:fft": 0, "gl_momentum_step:product": 0,
-    "gl_momentum_chain:fft": 0, "gl_momentum_chain:product": 0,
-    "gl_project:fft": 0, "gl_project:product": 0,
-    "gl_momentum_fullk:fft": 0, "gl_momentum_fullk:product": 0,
+    "gl_momentum_step:fft": 0, "gl_momentum_step:smooth": 0, "gl_momentum_step:product": 0,
+    "gl_momentum_chain:fft": 0, "gl_momentum_chain:smooth": 0, "gl_momentum_chain:product": 0,
+    "gl_project:fft": 0, "gl_project:smooth": 0, "gl_project:product": 0,
+    "gl_momentum_fullk:fft": 0, "gl_momentum_fullk:smooth": 0, "gl_momentum_fullk:product": 0,
 }
 
 
@@ -173,47 +181,77 @@ def gl_project_available(n_fft: int, hop_length: int, taps) -> bool:
 
 def gl_max_chain(n_fft: int, hop_length: int, want: int) -> int:
     """The longest chain ``<= want`` that one launch runs, at least 1: any on
-    the FFT route (no halo: a barrier across the grid between iterations); on
-    the product route the longest whose window (tile plus the halo of ``chain
-    * (overlap - 1)`` frames per side) fits shared memory."""
+    the FFT and the smooth route (no halo: a barrier across the grid between
+    iterations); on the product route the longest whose window (tile plus the
+    halo of ``chain * (overlap - 1)`` frames per side) fits shared memory."""
     overlap = n_fft // hop_length
     chain = max(1, want)
-    if fft_covers(n_fft):
+    if gl_step_route(n_fft, hop_length) != "product":
         return chain
     while chain >= 2 and _pick_tile(1 << 30, chain, overlap, hop_length) is None:
         chain -= 1
     return chain
 
 
+
 def _fft_smem_bytes(tile_t: int, overlap: int, hop: int, teams: int) -> int:
-    """Shared memory of one block of the FFT route, as ``csrc/glstep.cu``
-    lays it out: the samples of ``tile_t + overlap - 1`` chunks,
-    ``frames_rfft``'s area, the synthesis window, the leak table and one leak
-    factor per synthesized frame."""
+    """Shared memory of one block of the FFT or the smooth route, as
+    ``csrc/glstep.cu`` lays it out: the samples of ``tile_t + overlap - 1``
+    chunks, ``frames_rfft``'s area, the synthesis window, the leak table and
+    one leak factor per synthesized frame."""
     n = overlap * hop
-    return 4 * ((tile_t + overlap - 1) * hop + fft_smem_floats(n, teams) + 2 * n + tile_t + 2 * overlap)
+    return 4 * ((tile_t + overlap - 1) * hop + fft_area_floats(n, teams) + 2 * n + tile_t + 2 * overlap)
 
 
 @functools.lru_cache(maxsize=None)
 def _step_fft_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
-    """``(tile_t, teams)`` of the FFT route's block (``fft_covers(n_fft)``):
+    """``(tile_t, teams)`` of the FFT or the smooth route's block, or None:
     ``tile_t`` frames a multiple of ``2 overlap`` (the synthesis's pair groups
     start at the block's first frame, the analysis's pairs ``(2j, 2j + 1)`` at
-    an even one), chosen by ``frames_fft.class_plan`` with the analysis's
-    ``tile_t / 2`` pairs: 56 frames and 4 FFTs at 1024/256, two blocks an SM."""
+    an even one), chosen with the analysis's ``tile_t / 2`` pairs by
+    ``frames_fft.class_plan`` where ``fft_covers(n_fft)`` (56 frames and 4
+    FFTs at 1024/256, two blocks an SM) and ``class_plan_smooth`` where
+    ``fft_covers_smooth(n_fft)``, with up to four blocks an SM (the smooth
+    instance takes 64 registers: 56 frames and 4 FFTs at 768/192, 24 and 4
+    at 640/160; ``chip_smoke.py``'s plan sweep on an H100 found it the
+    fastest plan at three of five shapes and within 2.7 % at the others,
+    where two blocks an SM at most picked 56 x 4 at 640/160, 20.4 % slower);
+    None on the product route's sizes."""
     overlap = n_fft // hop
-    return class_plan(n_fft, hop, lambda t, teams: _fft_smem_bytes(t, overlap, hop, teams),
-                      analysis_pairs=lambda t: t // 2)
+
+    def smem(t, teams):
+        return _fft_smem_bytes(t, overlap, hop, teams)
+
+    if fft_covers(n_fft):
+        return class_plan(n_fft, hop, smem, analysis_pairs=lambda t: t // 2)
+    if fft_covers_smooth(n_fft):
+        return class_plan_smooth(n_fft, hop, smem, blocks=4, analysis_pairs=lambda t: t // 2)
+    return None
+
+
+def gl_step_route(n_fft: int, hop_length: int) -> str:
+    """The route of C, D and I at ``(n_fft, hop_length)``, read by the
+    kernel wrappers and the plain versions alike: ``"fft"`` where
+    ``fft_covers(n_fft)`` (a power of two from 64 to 4096), ``"smooth"`` where
+    ``fft_covers_smooth(n_fft)`` and a smooth block fits
+    (:func:`_step_fft_plan`), else ``"product"``."""
+    if fft_covers(n_fft):
+        return "fft"
+    if fft_covers_smooth(n_fft) and _step_fft_plan(n_fft, hop_length) is not None:
+        return "smooth"
+    return "product"
 
 
 def _fft_operands(taps, n_fft: int, dev):
-    """What the FFT route reads besides the state: the taps' window, the
-    synthesis window (it over ``n_fft``), the leak table and the twiddles."""
+    """What the FFT and the smooth route read besides the state: the taps'
+    window, the synthesis window (it over ``n_fft``; on the smooth route
+    rounded once from float64), the leak table and the twiddles (the smooth
+    stages read the first ``fft_smooth_table(n_fft)`` of each row)."""
     taps = tuple(float(t) for t in taps)
     (w,) = _tables(taps_window, dev, taps, n_fft)
     (leak,) = _tables(_leak_table, dev, taps, n_fft)
     (tw,) = _tables(fft_twiddles, dev, n_fft)
-    return w, irfft_window(w, n_fft).contiguous(), leak, tw
+    return w, irfft_window(w, n_fft, not fft_covers(n_fft)).contiguous(), leak, tw
 
 
 def _env_rows(T: int, n_fft: int, hop_length: int, window: torch.Tensor) -> torch.Tensor:
@@ -264,41 +302,45 @@ def _leak_table(taps: Tuple[float, ...], n_fft: int) -> np.ndarray:
     return np.asarray(-(2.0 / n_fft) * s, dtype=np.float32)
 
 
-def _fft_frames(mag, are, aim, n_fft: int, hop: int, window) -> torch.Tensor:
+def _fft_frames(mag, are, aim, n_fft: int, hop: int, window, smooth: bool = False) -> torch.Tensor:
     """``frames_irfft`` of the spectra ``mag * (are, aim)`` ``(B, T, F)`` under
     ``irfft_window(window)``, as the FFT route's kernels (C, D, I, J) pair
     them: frames ``f`` and ``f + overlap`` for ``f mod 2 overlap >= overlap``
-    (frames 0 .. overlap - 1 pair with zero frames before the clip)."""
+    (frames 0 .. overlap - 1 pair with zero frames before the clip).
+    ``smooth``: the smooth route's schedule (the mixed-radix stages, the
+    window's ``1 / n_fft`` fold rounded once from float64)."""
     ov = n_fft // hop
     lead = mag.new_zeros(mag.shape[:-2] + (ov, mag.shape[-1]))
     re = torch.cat([lead, mag * are], dim=-2)
     im = torch.cat([lead, mag * aim], dim=-2)
-    return frames_irfft_reference(re, im, irfft_window(window, n_fft), ov)[..., ov:, :]
+    return frames_irfft_reference(re, im, irfft_window(window, n_fft, smooth), ov, smooth)[..., ov:, :]
 
 
-def _project_fft(mag, are, aim, env, n_fft, hop, taps):
+def _project_fft(mag, are, aim, env, n_fft, hop, taps, smooth: bool = False):
     """The consistency projection on the FFT route's schedule, plain PyTorch
     in the kernel's order of float32 operations: the frames of
     :func:`_fft_frames` under the taps' window, plus ``Im(Y_0)`` times
     :func:`_leak_table` on every sample, the overlap-add in class order
     ``f mod overlap``, the division by the envelope, the in-place framing of
     the un-trimmed signal, ``frames_rfft_reference`` (pairs ``(2j, 2j +
-    1)``) under the taps' window."""
+    1)``) under the taps' window.  ``smooth``: the smooth route's schedule."""
     taps = tuple(float(t) for t in taps)
     (w,) = _tables(taps_window, mag.device, taps, n_fft)
     (leak,) = _tables(_leak_table, mag.device, taps, n_fft)
-    frames = _fft_frames(mag, are, aim, n_fft, hop, w)
+    frames = _fft_frames(mag, are, aim, n_fft, hop, w, smooth)
     lam = mag[..., 0] * aim[..., 0]
     frames = frames + lam[..., None] * leak
     signal = overlap_add_classes(frames, hop) / env.reshape(-1)
-    return frames_rfft_reference(signal.unfold(-1, n_fft, hop), w)
+    return frames_rfft_reference(signal.unfold(-1, n_fft, hop), w, smooth=smooth)
 
 
 def _projection_reference(mag, are, aim, env, n_fft, hop, taps):
-    """The plain projection of the route ``n_fft`` picks: :func:`_project_fft`
-    where ``fft_covers(n_fft)``, else :func:`_project`."""
-    if fft_covers(n_fft):
-        return _project_fft(mag, are, aim, env, n_fft, hop, taps)
+    """The plain projection of the route :func:`gl_step_route` picks:
+    :func:`_project_fft` on the FFT and (``smooth=True``) the smooth route,
+    else :func:`_project`."""
+    route = gl_step_route(n_fft, hop)
+    if route != "product":
+        return _project_fft(mag, are, aim, env, n_fft, hop, taps, smooth=route == "smooth")
     return _project(mag, are, aim, env, n_fft, hop, taps)
 
 
@@ -430,7 +472,7 @@ def make_gl_momentum_step(
             "and hop %% 32 == 0)" % (n_fft, hop_length)
         )
     name = "gl_momentum_chain" if iters >= 2 else "gl_momentum_step"
-    if fft_covers(n_fft):
+    if gl_step_route(n_fft, hop_length) != "product":
         return _make_fft_step(mag32, env, n_fft, hop_length, taps, mom, iters, name), _to_rows, _from_rows
     tile_t = _pick_tile(T, iters, overlap, hop_length)
     if tile_t is None:
@@ -486,12 +528,13 @@ def _fft_plan_or_raise(n_fft: int, hop: int) -> Tuple[int, int]:
 
 
 def _make_fft_step(mag32, env, n_fft: int, hop: int, taps, mom: float, iters: int, name: str) -> Callable:
-    """The step of :func:`make_gl_momentum_step` on the FFT route: one launch
-    of ``gl_step_fft_kernel`` a call (a cooperative one for a chain, whose
-    intermediate state goes through a scratch set of four ``(B, T, F)``
-    arrays allocated here)."""
+    """The step of :func:`make_gl_momentum_step` on the FFT or the smooth
+    route: one launch of ``gl_step_fft_kernel`` (the route's instance) a call
+    (a cooperative one for a chain, whose intermediate state goes through a
+    scratch set of four ``(B, T, F)`` arrays allocated here)."""
     B, T, F = mag32.shape
     dev = mag32.device
+    route = gl_step_route(n_fft, hop)
     tile_t, teams = _fft_plan_or_raise(n_fft, hop)
     ops = _fft_operands(taps, n_fft, dev)
     scratch = barrier = None
@@ -513,7 +556,7 @@ def _make_fft_step(mag32, env, n_fft: int, hop: int, taps, mom: float, iters: in
             )
         _build.check(code, name)
         launches[name] += 1
-        routes[name + ":fft"] += 1
+        routes[name + ":" + route] += 1
         return tuple(outs)
 
     return step
@@ -521,8 +564,8 @@ def _make_fft_step(mag32, env, n_fft: int, hop: int, taps, mom: float, iters: in
 
 # ------------------------------------------------- kernel I: the projection
 def gl_project_reference(mag, ang_re, ang_im, n_fft, hop_length, taps, window):
-    """Plain PyTorch version of :func:`gl_project`, on the route ``n_fft``
-    picks."""
+    """Plain PyTorch version of :func:`gl_project`, on the route
+    :func:`gl_step_route` picks."""
     env = _env_rows(mag.shape[-2], n_fft, hop_length, window.to(mag.device))
     return _projection_reference(mag.to(torch.float32), ang_re.to(torch.float32),
                                  ang_im.to(torch.float32), env, n_fft, hop_length, taps)
@@ -545,7 +588,7 @@ def gl_project(mag, ang_re, ang_im, n_fft, hop_length, taps, window):
         )
     B, T, F = mag.shape
     dev = mag.device
-    if fft_covers(n_fft):
+    if gl_step_route(n_fft, hop_length) != "product":
         return _fft_project(mag, ang_re, ang_im, n_fft, hop_length, taps, window)
     tile_t = _pick_tile(T, 1, n_fft // hop_length, hop_length)
     if tile_t is None:
@@ -581,8 +624,10 @@ def gl_project(mag, ang_re, ang_im, n_fft, hop_length, taps, window):
 
 
 def _fft_project(mag, ang_re, ang_im, n_fft: int, hop: int, taps, window):
-    """:func:`gl_project` on the FFT route: the step kernel's FFT route with
-    ``project = 1`` (no momentum update, R written alone)."""
+    """:func:`gl_project` on the FFT or the smooth route: the step kernel's
+    instance of the route with ``project = 1`` (no momentum update, R written
+    alone)."""
+    route = gl_step_route(n_fft, hop)
     B, T, F = mag.shape
     dev = mag.device
     tile_t, teams = _fft_plan_or_raise(n_fft, hop)
@@ -604,7 +649,7 @@ def _fft_project(mag, ang_re, ang_im, n_fft: int, hop: int, taps, window):
         )
     _build.check(code, "gl_project")
     launches["gl_project"] += 1
-    routes["gl_project:fft"] += 1
+    routes["gl_project:" + route] += 1
     return rre, rim
 
 
@@ -658,20 +703,35 @@ def _pick_fullk_block(n_fft: int, hop: int) -> Optional[Tuple[int, int, int]]:
 
 
 def _fullk_fft_smem_bytes(rows: int, hop: int, n_fft: int, teams: int) -> int:
-    """Shared memory of one block of the full-K step's FFT route: the samples
-    of ``rows`` chunks, ``frames_rfft``'s area and the synthesis window."""
-    return 4 * (rows * hop + fft_smem_floats(n_fft, teams) + n_fft)
+    """Shared memory of one block of the full-K step's FFT or smooth route:
+    the samples of ``rows`` chunks, ``frames_rfft``'s area on the route
+    ``n_fft`` takes and the synthesis window."""
+    return 4 * (rows * hop + fft_area_floats(n_fft, teams) + n_fft)
 
 
+@functools.lru_cache(maxsize=None)
 def _pick_fullk_fft_block(n_fft: int, hop: int) -> Optional[Tuple[int, int, int]]:
-    """``(rows, tile_t, teams)`` of the FFT route (``fft_covers(n_fft)``):
-    ``tile_t`` frames a multiple of ``2 overlap`` (the synthesis's pair groups
-    start at the block's first frame, the analysis's pairs ``(2j, 2j + 1)`` at
-    an even one), ``rows = tile_t + overlap`` chunks, chosen by
-    ``frames_fft.class_plan`` with the analysis's ``tile_t / 2`` pairs."""
+    """``(rows, tile_t, teams)`` of the FFT route (``fft_covers(n_fft)``) or
+    the smooth route (``fft_covers_smooth(n_fft)``), or None: ``tile_t``
+    frames a multiple of ``2 overlap`` (the synthesis's pair groups start at
+    the block's first frame, the analysis's pairs ``(2j, 2j + 1)`` at an even
+    one), ``rows = tile_t + overlap`` chunks, chosen with the analysis's
+    ``tile_t / 2`` pairs by ``frames_fft.class_plan``, or on the smooth route
+    ``class_plan_smooth`` with up to four blocks an SM (64 registers: 12
+    frames and 4 FFTs at 768/256, the fastest plan of ``chip_smoke.py``'s
+    sweep at all five shapes; the analysis's term moved the pick there from
+    42 frames, 3.3 % slower on an H100)."""
     overlap = n_fft // hop
-    plan = class_plan(n_fft, hop, lambda t, teams: _fullk_fft_smem_bytes(t + overlap, hop, n_fft, teams),
-                      analysis_pairs=lambda t: t // 2)
+
+    def smem(t, teams):
+        return _fullk_fft_smem_bytes(t + overlap, hop, n_fft, teams)
+
+    if fft_covers(n_fft):
+        plan = class_plan(n_fft, hop, smem, analysis_pairs=lambda t: t // 2)
+    elif fft_covers_smooth(n_fft):
+        plan = class_plan_smooth(n_fft, hop, smem, blocks=4, analysis_pairs=lambda t: t // 2)
+    else:
+        plan = None
     if plan is None:
         return None
     tile_t, teams = plan
@@ -679,15 +739,30 @@ def _pick_fullk_fft_block(n_fft: int, hop: int) -> Optional[Tuple[int, int, int]
 
 
 def _fullk_plan(n_fft: int, hop: int) -> Optional[Tuple[str, int, int, int]]:
-    """The full-K step's route and block: ``("fft", rows, tile_t, teams)``
-    where ``fft_covers(n_fft)`` (:func:`_pick_fullk_fft_block`), else
-    ``("product", rows, tile_t, slab)`` (:func:`_pick_fullk_block`); None
-    when no block fits.  The route reads ``n_fft`` alone."""
+    """The full-K step's route and block, read by the kernel wrapper and the
+    plain version alike: ``("fft", rows, tile_t, teams)`` where
+    ``fft_covers(n_fft)`` (:func:`_pick_fullk_fft_block`), ``("smooth", rows,
+    tile_t, teams)`` where ``fft_covers_smooth(n_fft)`` and a smooth block
+    fits, else ``("product", rows, tile_t, slab)`` (:func:`_pick_fullk_block`);
+    None when no block fits.  The route reads ``(n_fft, hop)`` alone."""
     if fft_covers(n_fft):
         pick = _pick_fullk_fft_block(n_fft, hop)
         return None if pick is None else ("fft",) + pick
+    if fft_covers_smooth(n_fft):
+        pick = _pick_fullk_fft_block(n_fft, hop)
+        if pick is not None:
+            return ("smooth",) + pick
     pick = _pick_fullk_block(n_fft, hop)
     return None if pick is None else ("product",) + pick
+
+
+def _fullk_route(n_fft: int, hop: int) -> str:
+    """The route of :func:`_fullk_plan` (``"product"`` where no block fits:
+    the plain version's products)."""
+    if fft_covers(n_fft):
+        return "fft"
+    plan = _fullk_plan(n_fft, hop)
+    return "product" if plan is None else plan[0]
 
 
 def _fullk_reflection_covered(T: int, n_fft: int, hop: int, rows: int, tile_t: int) -> bool:
@@ -723,16 +798,18 @@ def _trim_reflect(signal: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
 
 def gl_momentum_step_fullk_reference(mag, are, aim, tre, tim, env, n_fft, hop_length, window, mom):
     """Plain version of the full-K step: one momentum-GL iteration on
-    ``(B, T, F)`` arrays, returning ``(nare, naim, rre, rim)``.  Where
-    ``fft_covers(n_fft)`` it repeats the FFT route's schedule (see
-    :func:`_fullk_fft_signal`; the analysis ``frames_rfft_reference``, the
-    update rounded step by step as the kernel rounds it); elsewhere the
-    products with the window-folded bases."""
+    ``(B, T, F)`` arrays, returning ``(nare, naim, rre, rim)``.  On the FFT
+    and the smooth route (:func:`_fullk_plan`) it repeats the kernel's
+    schedule (see :func:`_fullk_fft_signal`; the analysis
+    ``frames_rfft_reference``, the update rounded step by step as the kernel
+    rounds it); elsewhere the products with the window-folded bases."""
     w = window.to(mag.device)
-    if fft_covers(n_fft):
-        signal = _fullk_fft_signal(mag, are, aim, n_fft, hop_length, w) / env.reshape(-1)
+    route = _fullk_route(n_fft, hop_length)
+    if route != "product":
+        smooth = route == "smooth"
+        signal = _fullk_fft_signal(mag, are, aim, n_fft, hop_length, w, smooth) / env.reshape(-1)
         reframed = _trim_reflect(signal, n_fft, hop_length).unfold(-1, n_fft, hop_length)
-        rre, rim = frames_rfft_reference(reframed, w)
+        rre, rim = frames_rfft_reference(reframed, w, smooth=smooth)
     else:
         from .pghi_kernel import _windowed_idft
 
@@ -748,13 +825,14 @@ def gl_momentum_step_fullk_reference(mag, are, aim, tre, tim, env, n_fft, hop_le
     return ure / n, uim / n, rre, rim
 
 
-def _fullk_fft_signal(mag, are, aim, n_fft: int, hop: int, window) -> torch.Tensor:
+def _fullk_fft_signal(mag, are, aim, n_fft: int, hop: int, window, smooth: bool = False) -> torch.Tensor:
     """The FFT route's synthesis: the overlap-add ``(B, (T - 1) hop + n_fft)``
     of ``frames_irfft`` of the spectra ``mag * (are, aim)``, as the kernel
     pairs them (frames ``f`` and ``f + overlap`` for ``f mod 2 overlap >=
     overlap``: frames 0 .. overlap - 1 pair with zero frames before the
-    clip) and sums them (class ``f mod overlap`` after class)."""
-    return overlap_add_classes(_fft_frames(mag, are, aim, n_fft, hop, window), hop)
+    clip) and sums them (class ``f mod overlap`` after class).  ``smooth``:
+    the smooth route's schedule."""
+    return overlap_add_classes(_fft_frames(mag, are, aim, n_fft, hop, window, smooth), hop)
 
 
 def gl_momentum_step_fullk_oracle(mag, are, aim, tre, tim, env, n_fft, hop_length, window, mom):
@@ -822,12 +900,13 @@ def make_gl_momentum_step_fullk(
             "which %d frames at n_fft=%d hop=%d do not fit (ROADMAP Queue 2, K9); use "
             "fused=False" % (T, n_fft, hop_length)
         )
-    if route == "fft":
-        # the FFT route reads the window, the window / n_fft and the twiddles
+    if route != "product":
+        # the FFT and the smooth route read the window, the window / n_fft
+        # (rounded once from float64 on the smooth route) and the twiddles
         teams, slab, kp = last, 0, 0
         (tw,) = _tables(fft_twiddles, dev, n_fft)
         win = window.to(torch.float32).contiguous()
-        ops = (None, None, None, win, irfft_window(win, n_fft).contiguous(), tw)
+        ops = (None, None, None, win, irfft_window(win, n_fft, route == "smooth").contiguous(), tw)
     else:
         from .pghi_kernel import _synth_basis
 

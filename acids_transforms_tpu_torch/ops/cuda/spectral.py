@@ -80,12 +80,12 @@ from .frames_fft import (
     MAX_SMEM,
     SM_SMEM,
     TWO_BLOCKS_SMEM,
+    fft_area_floats,
     fft_covers,
     fft_covers_smooth,
     fft_max_teams,
     fft_smem_floats,
     fft_smooth_max_teams,
-    fft_smooth_smem_floats,
     fft_twiddles,
     frames_rfft_reference,
     taps_window,
@@ -162,17 +162,12 @@ def _smem_bytes(tile_t: int, hop: int, overlap: int, n_bins: int) -> int:
     return 4 * ((tile_t + overlap - 1) * hop + tile_t * n_bins + work)
 
 
-def _fft_area_floats(n_fft: int, teams: int) -> int:
-    """``frames_rfft``'s area on the route ``n_fft`` takes (``csrc/
-    fft_smem.cuh:fft_area_floats``): the FFT route's, else the smooth one's."""
-    return fft_smem_floats(n_fft, teams) if fft_covers(n_fft) else fft_smooth_smem_floats(n_fft, teams)
-
 
 def _fft_smem_bytes(tile_t: int, hop: int, overlap: int, n_bins: int, teams: int) -> int:
     """Shared memory of one block of E or F on the FFT or the smooth route:
     the same rows and magnitudes, then ``frames_rfft``'s window, twiddles and
     buffers on the route ``overlap * hop`` takes."""
-    return 4 * ((tile_t + overlap - 1) * hop + tile_t * n_bins + _fft_area_floats(overlap * hop, teams))
+    return 4 * ((tile_t + overlap - 1) * hop + tile_t * n_bins + fft_area_floats(overlap * hop, teams))
 
 
 def _pick_tile(hop: int, overlap: int, n_bins: int) -> Optional[int]:

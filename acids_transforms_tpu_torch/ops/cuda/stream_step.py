@@ -155,12 +155,12 @@ from .frames_fft import (
     TWO_BLOCKS_SMEM,
     class_plan,
     class_plan_smooth,
+    fft_area_floats,
     fft_covers,
     fft_covers_smooth,
     fft_max_teams,
     fft_smem_floats,
     fft_smooth_max_teams,
-    fft_smooth_smem_floats,
     fft_twiddles,
     frames_irfft_reference,
     frames_rfft_reference,
@@ -376,17 +376,12 @@ def session_route(n_fft: int) -> str:
     return "smooth" if fft_covers_smooth(n_fft) else "product"
 
 
-def _fft_area_floats(n_fft: int, teams: int) -> int:
-    """``frames_rfft``'s area on the route ``n_fft`` takes (``csrc/
-    fft_smem.cuh:fft_area_floats``)."""
-    return fft_smem_floats(n_fft, teams) if fft_covers(n_fft) else fft_smooth_smem_floats(n_fft, teams)
-
 
 def _encode_fft_smem_bytes(rows: int, hop: int, n_fft: int, teams: int) -> int:
     """Shared memory of one encode block on the FFT or smooth route: the
     samples of ``rows`` frames, then ``frames_rfft``'s window, twiddles and
     buffers."""
-    return 4 * ((rows - 1) * hop + n_fft + _fft_area_floats(n_fft, teams))
+    return 4 * ((rows - 1) * hop + n_fft + fft_area_floats(n_fft, teams))
 
 
 def _roundtrip_smem_bytes(rows: int, overlap: int, hop: int, kn: int, kp: int) -> int:
@@ -399,7 +394,7 @@ def _roundtrip_fft_smem_bytes(rows: int, overlap: int, hop: int, teams: int) -> 
     samples of ``rows + 2 overlap`` frames, the ``rows`` output chunks,
     ``frames_rfft``'s area and the synthesis window."""
     n = overlap * hop
-    return 4 * ((rows + 2 * overlap - 1) * hop + n + rows * hop + _fft_area_floats(n, teams) + n)
+    return 4 * ((rows + 2 * overlap - 1) * hop + n + rows * hop + fft_area_floats(n, teams) + n)
 
 
 def _decode_smem_bytes(rows: int, overlap: int, kp: int) -> int:
@@ -410,7 +405,7 @@ def _decode_fft_smem_bytes(rows: int, hop: int, n_fft: int, teams: int) -> int:
     """Shared memory of one decode block on the FFT or smooth route: the
     ``rows`` output chunks and ``frames_irfft``'s area on the route ``n_fft``
     takes (the synthesis window in the window's place)."""
-    return 4 * (rows * hop + _fft_area_floats(n_fft, teams))
+    return 4 * (rows * hop + fft_area_floats(n_fft, teams))
 
 
 def _best_rows(candidates, overlap: int) -> Optional[int]:

@@ -65,8 +65,8 @@ have two routes, picked by n_fft alone: a shared-memory FFT
 (``csrc/fft_smem.cuh``: ``frames_rfft`` for the analyses, ``frames_irfft``
 for the syntheses of C, D, I, J, L, M, K, P, S and O) at a power of two
 from 64 to 4096, the window-folded products elsewhere (R, L, M, P, S,
-O's synthesis, E and F take a third route, the mixed-radix FFT, at even
-5-smooth n_fft); so do the log-mel
+O's synthesis, E, F, J, C, D and I take a third route, the mixed-radix FFT,
+at even 5-smooth n_fft); so do the log-mel
 forward and fit (A and B: E's and F's FFT and smooth instances under the
 taps' own window, the factored front end elsewhere), the representations' forward
 and fit statistics with taps (G and H: G and H full-K's instances under the
@@ -80,24 +80,28 @@ extrema bit-identical and sums within 1e-5, at every power of two from 64
 under hann, hamming and blackman) and against a float64 oracle at 1024, 512,
 2048 and 4096 (C, D, I, K, G, H, P, S and O's synthesis at every power of
 two from 64), the factored route at 768/192 (G, H) and 896/224 (A, B), and
-the product route at 768/256 (J, K, G, H), 896/224 (E, F), 768/192
-(C, D, I, K), 8192/2048 (J), 1200/300 (K) and 1344/336 (R, L, M, P, S,
-O's synthesis), and the smooth route of R, L, M, P, S and O's synthesis
-(the mixed-radix FFT) at 1200/300, 960/240, 768/192, 400/100 and 1920/480,
-bit-identical to its plain version, and of E and F (A and B under hann and
+the product route at 768/256 (K, G, H), 896/224 (E, F, J, C, D, I), 768/192
+(K), 8192/2048 (J), 1200/300 (K) and 1344/336 (R, L, M, P, S, O's
+synthesis), and the smooth route of R, L, M, P, S and O's synthesis (the
+mixed-radix FFT) at 1200/300, 960/240, 768/192, 400/100 and 1920/480,
+bit-identical to its plain version, of E and F (A and B under hann and
 blackman taps) at 768/256, 768/192, 640/160, 384/96, 1536/384, 1920/480 and
 3072/768 (|X| and the extrema bit-identical, the mel product's and the sums'
-order aside); the launch counters' route tally shows
+order aside), and of J, C, D and I at those seven framings (bit-identical,
+D to four C, every frame of C, I and J within 1e-5 of the float64 oracle);
+the launch counters' route tally shows
 every main-path launch of the nineteen on the FFT route, and phase 4h
 drives the smooth, product and factored routes through the entry points
 (1200/300 sessions: R, L, M, the magnitude encode and the decodes on the
 smooth route; 1344/336 sessions: R, L, M, the magnitude encode and the
-decodes on the product route; an STFT(768, 192) Griffin-Lim invert, STFT(768, 192)
-log-mel (A, B on the smooth route) and Polar chains' fit and forward, a
-DGT(768, 256) chain's fit and forward (E, F on the smooth route), ``pghi``
-and ``pghi_gl``, DGT(768, 256) + PolarIF's fit and forward, the
-STFT(896, 224) log-mel and DGT(896, 224) magnitude chains' fit and forward:
-A, B factored and E, F on the product route, 896 = 2^7 7).  Phase
+decodes on the product route; STFT(768, 192) and STFT(896, 224)
+Griffin-Lim inverts (C, D on the smooth, then the product route),
+STFT(768, 192) log-mel (A, B on the smooth route) and Polar chains' fit and
+forward, a DGT(768, 256) chain's fit and forward (E, F on the smooth
+route), ``pghi`` and ``pghi_gl`` (J on the smooth route), DGT(768, 256) +
+PolarIF's fit and forward, the STFT(896, 224) log-mel and DGT(896, 224)
+magnitude chains' fit and forward, and the latter's ``pghi_gl``: A, B
+factored and E, F, J on the product route, 896 = 2^7 7).  Phase
 6 runs the floor sweep of A's factored design
 (``acids_transforms_tpu_torch.tools.sweep_kernel_floor``: kernel T, A cut
 after each of its stages) at the main path's shape, prints each stage's
@@ -209,6 +213,115 @@ def smooth_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
     return out
 
 
+def gl_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
+    """C (hann) and J (the DGT's gaussian) on the smooth route at each of
+    PLAN_SWEEP_SHAPES under every plan the kernels take (tile_t a multiple
+    of 2 overlap up to 64 x 1, 2, 4, ... FFTs side by side, within the
+    route's teams and shared memory), the card's time a call back to back
+    (device_ms); the output must be bit-identical under every plan (the
+    frame pairs do not depend on it).  Returns per kernel and shape the
+    rows, the rule's pick (glstep._step_fft_plan, glstep._fullk_plan) and the
+    fastest plan."""
+    from acids_transforms_tpu_torch.ops.cuda import frames_fft as ff, glstep
+    from acids_transforms_tpu_torch.ops.fft import stft, taps_for_window
+    from acids_transforms_tpu_torch.ops.windows import gaussian_dgt_window, get_window
+
+    rule_c, rule_j = glstep._step_fft_plan, glstep._pick_fullk_fft_block
+    mom, out = 0.99 / 1.99, {}
+    try:
+        for n_fft, hop in PLAN_SWEEP_SHAPES:
+            ov = n_fft // hop
+            for kernel in ("C", "J"):
+                if kernel == "C":
+                    w = get_window("hann", n_fft, device=mono.device)
+                    taps = taps_for_window(w)
+                    pick = rule_c(n_fft, hop)
+
+                    def make():
+                        return glstep.make_gl_momentum_step(mag, n_fft, hop, taps, w, mom)[0]
+
+                    def fits(tile, teams):
+                        return glstep._fft_smem_bytes(tile, ov, hop, teams) <= ff.MAX_SMEM
+                else:
+                    w = gaussian_dgt_window(n_fft, device=mono.device)
+                    pick = rule_j(n_fft, hop)[1:]
+
+                    def make():
+                        return glstep.make_gl_momentum_step_fullk(mag, n_fft, hop, w, mom)[0]
+
+                    def fits(tile, teams):
+                        return glstep._fullk_fft_smem_bytes(tile + ov, hop, n_fft, teams) <= ff.MAX_SMEM
+                mag = stft(mono, n_fft, hop, w).abs()
+                g = torch.Generator(device=mono.device).manual_seed(n_fft + hop)
+                ph = 2 * math.pi * torch.rand(mag.shape, generator=g, device=mono.device)
+                st = (torch.cos(ph), torch.sin(ph), torch.zeros_like(ph), torch.zeros_like(ph))
+                del ph
+                ref = make()(*st)
+                rows = []
+                for tile in range(2 * ov, 65, 2 * ov):
+                    teams = 1
+                    while teams <= ff.fft_smooth_max_teams(n_fft):
+                        if fits(tile, teams):
+                            if kernel == "C":
+                                glstep._step_fft_plan = lambda *a, p=(tile, teams): p
+                            else:
+                                glstep._pick_fullk_fft_block = lambda *a, p=(tile + ov, tile, teams): p
+                            step = make()
+                            require(all(torch.equal(a, b) for a, b in zip(step(*st), ref)),
+                                    f"{kernel} {n_fft}/{hop}: plan {(tile, teams)} changes the output")
+                            rows.append(dict(tile=tile, teams=teams, ms=device_ms(lambda: step(*st), repeats)))
+                            glstep._step_fft_plan, glstep._pick_fullk_fft_block = rule_c, rule_j
+                        teams *= 2
+                best = min(rows, key=lambda r: r["ms"])
+                mine = next(r for r in rows if (r["tile"], r["teams"]) == tuple(pick))
+                out[f"{kernel} {n_fft}/{hop}"] = dict(rows=rows, pick=tuple(pick), best=(best["tile"], best["teams"]),
+                                                       over=mine["ms"] / best["ms"] - 1.0)
+                del mag, st, ref
+    finally:
+        glstep._step_fft_plan, glstep._pick_fullk_fft_block = rule_c, rule_j
+    return out
+
+
+def gl_route_turns(mono: torch.Tensor, repeats: int) -> dict:
+    """C, D (chain 4) and I at 768/192 (hann) and J at 768/256 (the DGT's
+    gaussian) on the product instance, the route these shapes took before
+    the smooth one (glstep.gl_step_route / _fullk_plan forced to
+    "product"), and on the smooth instance, in turns product, smooth,
+    smooth, product, the card's time a call back to back (device_ms).
+    Returns per (route, kernel) the two turns' times."""
+    from acids_transforms_tpu_torch.ops.cuda import glstep
+    from acids_transforms_tpu_torch.ops.fft import stft, taps_for_window
+    from acids_transforms_tpu_torch.ops.windows import gaussian_dgt_window, get_window
+
+    dev, mom = mono.device, 0.99 / 1.99
+    rule_c, rule_j = glstep.gl_step_route, glstep._fullk_plan
+    w = get_window("hann", 768, device=dev)
+    taps = taps_for_window(w)
+    wg = gaussian_dgt_window(768, device=dev)
+    mag, magj = stft(mono, 768, 192, w).abs(), stft(mono, 768, 256, wg).abs()
+    g = torch.Generator(device=dev).manual_seed(768)
+    st, stj = [tuple(f(ph) for f in (torch.cos, torch.sin, torch.zeros_like, torch.zeros_like))
+               for ph in (2 * math.pi * torch.rand(m.shape, generator=g, device=dev) for m in (mag, magj))]
+    out = {}
+    try:
+        for product in (True, False, False, True):
+            if product:
+                glstep.gl_step_route = lambda n_fft, hop: "product"
+                glstep._fullk_plan = lambda n_fft, hop: ("product",) + glstep._pick_fullk_block(n_fft, hop)
+            s1 = glstep.make_gl_momentum_step(mag, 768, 192, taps, w, mom)[0]
+            s4 = glstep.make_gl_momentum_step(mag, 768, 192, taps, w, mom, iters=4)[0]
+            sj = glstep.make_gl_momentum_step_fullk(magj, 768, 256, wg, mom)[0]
+            route = "product" if product else "smooth"
+            for key, fn in (("C", lambda: s1(*st)), ("D", lambda: s4(*st)),
+                            ("I", lambda: glstep.gl_project(mag, st[0], st[1], 768, 192, taps, w)),
+                            ("J", lambda: sj(*stj))):
+                out.setdefault((route, key), []).append(device_ms(fn, repeats))
+            glstep.gl_step_route, glstep._fullk_plan = rule_c, rule_j
+    finally:
+        glstep.gl_step_route, glstep._fullk_plan = rule_c, rule_j
+    return out
+
+
 def melspec_smooth_instance(res: dict):
     """The resources of the two smooth instances phase 5 times (float32
     rows, float32 out): the forward's and the statistics'."""
@@ -224,6 +337,15 @@ def melspec_smooth_resources(res: dict) -> dict:
     kFrontSmooth = 3, ``Li3E`` in the mangled name."""
     return {k: v for k, v in res.items()
             if ("melspec_forward_kernel" in k or "melspec_stats_kernel" in k) and "Li3E" in k}
+
+
+def gl_smooth_resources(res: dict) -> dict:
+    """The build log's resources of the Griffin-Lim steps' smooth instances
+    (template argument kSmooth = true, ``ILb1E`` in the mangled name):
+    ``gl_step_fft_kernel<true>`` (C, D, I) and ``gl_fullk_fft_kernel<true>``
+    (J)."""
+    return {k: v for k, v in res.items()
+            if ("gl_step_fft_kernel" in k or "gl_fullk_fft_kernel" in k) and "ILb1E" in k}
 
 
 def require(cond: bool, what: str) -> None:
@@ -356,14 +478,15 @@ def make_audio(batch: int, length: int, gen: torch.Generator, channels: int = 2)
 
 def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain=4):
     """Kernels C and D against the plain version, a float64 oracle and each
-    other, on the route n_fft picks: the FFT route (a power of two from 64 to
-    4096) also against its plain version on every frame within 1e-6 (it
-    repeats the kernel's float32 operations in order: measured
+    other, on the route (n_fft, hop) picks (glstep.gl_step_route): the FFT
+    route (a power of two from 64 to 4096) and the smooth route (even
+    5-smooth n_fft) also against their plain version on every frame within
+    1e-6 (it repeats the kernel's float32 operations in order: measured
     bit-identical)."""
-    from acids_transforms_tpu_torch.ops.cuda import frames_fft, glstep
+    from acids_transforms_tpu_torch.ops.cuda import glstep
 
     dev = mag.device
-    route = "fft" if frames_fft.fft_covers(n_fft) else "product"
+    route = glstep.gl_step_route(n_fft, hop)
     glstep.reset_launches()
     g = torch.Generator(device=dev).manual_seed(seed)
     ph = 2 * math.pi * torch.rand(mag.shape, generator=g, device=dev)
@@ -411,6 +534,8 @@ def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain
         err["edge rms ratio"] = math.sqrt(squares["kernel"] / max(squares["plain"], 1e-300))
         return err
 
+    oracle_errs = {}
+
     def compare(kernel_out, plain_out, st, label, iters=1, tol=tol):
         # Interior frames: fp32 sums in another order than cuBLAS, 1e-4 leaves
         # two decades.  The first and last iters * (overlap - 1) frames hold
@@ -429,6 +554,7 @@ def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain
         # carries the maximum, so with a few clips the two maxima are a
         # handful of independent draws each).
         err = against_oracle(kernel_out, plain_out, st, iters)
+        oracle_errs[label] = err
         edge_tol = max(tol, 10.0 * err[("plain", "edge")])
         log(f"  {name} {label} vs float64 oracle: interior kernel {err[('kernel', 'interior')]:.3e} "
             f"plain {err[('plain', 'interior')]:.3e} (tol {tol:g}); edge kernel "
@@ -470,18 +596,19 @@ def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain
             require(e_w <= tol and e_u <= tol, f"{name} {label}: angles disagree with plain")
 
     def exact(kernel_out, plain_out, prev, label):
-        # the FFT route: the projection on every frame within 1e-6 of its
-        # largest value, the angles weighted by |u| / max|u| within 1e-6
-        if route != "fft":
+        # the FFT and the smooth route: the projection on every frame within
+        # 1e-6 of its largest value, the angles weighted by |u| / max|u|
+        # within 1e-6
+        if route == "product":
             return
         scale_r = max(plain_out[2].abs().max().item(), plain_out[3].abs().max().item())
         e_r = max(abs_err(kernel_out[i], plain_out[i]) for i in (2, 3)) / scale_r
         u = torch.sqrt((plain_out[2] - mom * prev[2]) ** 2 + (plain_out[3] - mom * prev[3]) ** 2)
         e_a = max(((kernel_out[i] - plain_out[i]).abs() * u / u.max()).max().item() for i in (0, 1))
         same = all(torch.equal(a, b) for a, b in zip(kernel_out, plain_out))
-        log(f"  {name} {label} (fft route, block {glstep._step_fft_plan(n_fft, hop)}): every frame vs plain "
+        log(f"  {name} {label} ({route} route, block {glstep._step_fft_plan(n_fft, hop)}): every frame vs plain "
             f"{e_r:.3e}, angles weighted by |u| {e_a:.3e} (tol 1e-06; bit-identical {same})")
-        require(e_r <= 1e-6 and e_a <= 1e-6, f"{name} {label}: the FFT route differs from its plain version")
+        require(e_r <= 1e-6 and e_a <= 1e-6, f"{name} {label}: the {route} route differs from its plain version")
 
     # C: one invocation from a random state, and one from the state
     # chain - 1 iterations later (so every iteration of a chain is covered
@@ -491,6 +618,12 @@ def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain
     err_c = compare(k1, p1, state, "C (1 iteration)")
     compare_angles(k1, p1, state, "C (1 iteration)")
     exact(k1, p1, state, "C (1 iteration)")
+    if route == "smooth":
+        # the smooth route's window is in the time domain, as the FFT
+        # route's: every frame of one step within 1e-5 of the float64 oracle
+        e_all = max(v for k, v in oracle_errs["C (1 iteration)"].items() if k[0] == "kernel")
+        log(f"  {name} C (1 iteration, smooth route): every frame vs float64 oracle {e_all:.3e} (tol 1e-05)")
+        require(e_all <= 1e-5, f"{name}: the smooth route's C is off the float64 oracle")
     st = k1
     for _ in range(chain - 2):
         st = step1(*st)
@@ -502,7 +635,8 @@ def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain
     k4 = step4(*state)
     torch.cuda.synchronize()
     err_chain = max(rel_err(a, b) for a, b in zip(k4, k4_single))
-    log(f"  {name} D (chain of {chain}) vs {chain} x C: {err_chain:.3e} (tol 1e-05)")
+    log(f"  {name} D (chain of {chain}) vs {chain} x C: {err_chain:.3e} (tol 1e-05; bit-identical "
+        f"{all(torch.equal(a, b) for a, b in zip(k4, k4_single))})")
     require(err_chain <= 1e-5, f"{name}: chain of {chain} differs from {chain} single steps")
     # D against the plain version and the oracle directly: chained iterations
     # of a chaotic map amplify the 1e-7 rounding differences
@@ -516,7 +650,7 @@ def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain
     log(f"  {name}: C and D launches by route {got}")
     require(set(got) == {f"gl_momentum_step:{route}", f"gl_momentum_chain:{route}"},
             f"{name}: C and D must take the {route} route")
-    key = "" if route == "fft" else "_product"
+    key = {"fft": "", "smooth": "_smooth", "product": "_product"}[route]
     results["C" + key] = max(results.get("C" + key, 0.0), err_c)
     results["D" + key] = max(results.get("D" + key, 0.0), abs_d)
     return state, step1, step4, env
@@ -1590,8 +1724,8 @@ def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
 
 def structure_phase(dev, mono, stream, wrappers, errs, counts):
     """Phase 4h: the dispatch at shapes outside the JAX package's gates, and
-    the product routes of the encode and of the full-K kernels (E, F, J, K's
-    synthesis, G, H).
+    the smooth and product routes of the encode, the decodes, the full-K
+    kernels (E, F, J, K's synthesis, G, H) and the Griffin-Lim steps.
 
     * Shapes that neither the JAX package's gates nor the port's kernels
       cover run the eager route on the card, as the JAX package runs them on
@@ -1625,9 +1759,12 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
       phase 4b holds the main shape; A and B likewise through the
       STFT(768, 192) log-mel chain; the same two chains at 896/224 (2^7 7)
       put E and F on the product route and A and B on the factored one.
-      The 768/256 chain's ``pghi_gl`` invert (J) and ``pghi`` invert (K's
-      synthesis) take their product routes, converging like the eager
-      routes; G and H full-K through ``DGT(768, 256) + PolarIF``'s fit and
+      The Griffin-Lim invert of an ``STFT(768, 192)`` takes C and D's smooth
+      route, of an ``STFT(896, 224)`` their product route; the 768/256
+      chain's ``pghi_gl`` invert takes J's smooth route, the 896/224 chain's
+      J's product route, and the 768/256 ``pghi`` invert K's synthesis's
+      product route, each converging like the eager route; G and H full-K
+      through ``DGT(768, 256) + PolarIF``'s fit and
       forward (product), G and H with taps through STFT(768, 192) +
       Polar's (factored), the magnitude's fit and channel 1 against the
       eager chain."""
@@ -1849,35 +1986,49 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
             counts["gl_project_analysis"] += n_chx * iters_x
     del y_x, f_x, y_mx, y_kx, y_gx, y_sx
 
-    # C and D on the product route: the Griffin-Lim invert of an STFT(768,
-    # 192, hann) (n_fft no power of two) on 16 clips, converging like the
-    # eager loop from the same seed
+    # C and D through the Griffin-Lim invert of an STFT(n_fft, hop, hann) on 16
+    # clips (7 D + 2 C), converging like the eager loop from the same seed:
+    # the smooth route at 768/192 (2^8 3), the product route at 896/224 (2^7
+    # 7).  Each path timed again once warm (host clock to the card's end)
     from acids_transforms_tpu_torch.ops.cuda import glstep as gs
 
-    st_g = T.STFT(n_fft=768, hop_length=192)
-    mag_g = st_g(mono[:16]).abs()
-    zero()
-    rec_g = st_g.griffin_lim(mag_g, generator=torch.Generator(device=dev).manual_seed(157))
-    torch.cuda.synchronize()
-    got = {k: v for k, v in gs.routes.items() if v}
-    log(f"  STFT(768, 192) Griffin-Lim invert on {tuple(mag_g.shape)}: launches "
-        f"{ {k: v for k, v in gs.launches.items() if v} }, routes {got}")
-    require(set(got) == {"gl_momentum_step:product", "gl_momentum_chain:product"} and launched() == sum(got.values()),
-            "STFT(768, 192) Griffin-Lim: C and D must launch on the product route")
-    for k, v in got.items():
-        counts[k] += v
-    rec_ge = st_g.griffin_lim(mag_g, generator=torch.Generator(device=dev).manual_seed(157), fused=False)
+    def gl_invert(n_fft, hop, route):
+        st_g = T.STFT(n_fft=n_fft, hop_length=hop)
+        mag_g = st_g(mono[:16]).abs()
+        require(gs.gl_step_route(n_fft, hop) == route, f"STFT({n_fft}, {hop}) must take the {route} route")
 
-    def conv_g(y):
-        R = st_g(y).abs()
-        n = min(R.shape[-2], mag_g.shape[-2])
-        return (torch.linalg.norm(R[:, :n] - mag_g[:, :n]) / torch.linalg.norm(mag_g)).item()
-    s_k, s_e = conv_g(rec_g), conv_g(rec_ge)
-    log(f"    spectral convergence through C and D {s_k:.5f}, eager loop from the same seed {s_e:.5f} "
-        f"(must be < {max(1.15 * s_e, s_e + 0.02):.5f})")
-    require(torch.isfinite(rec_g).all().item() and s_k < max(1.15 * s_e, s_e + 0.02),
-            "STFT(768, 192) Griffin-Lim: the product route converges worse than the eager loop")
-    del mag_g, rec_g, rec_ge
+        def run(fused):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = st_g.griffin_lim(mag_g, generator=torch.Generator(device=dev).manual_seed(157), fused=fused)
+            torch.cuda.synchronize()
+            return y, 1e3 * (time.perf_counter() - t0)
+        zero()
+        rec_g, _ = run(None)
+        got = {k: v for k, v in gs.routes.items() if v}
+        log(f"  STFT({n_fft}, {hop}) Griffin-Lim invert on {tuple(mag_g.shape)}: launches "
+            f"{ {k: v for k, v in gs.launches.items() if v} }, routes {got}")
+        require(set(got) == {f"gl_momentum_step:{route}", f"gl_momentum_chain:{route}"}
+                and launched() == sum(got.values()),
+                f"STFT({n_fft}, {hop}) Griffin-Lim: C and D must launch on the {route} route")
+        for k, v in got.items():
+            counts[k] += v
+        rec_ge, _ = run(False)
+        (_, t_k), (_, t_e) = run(None), run(False)
+
+        def conv_g(y):
+            R = st_g(y).abs()
+            n = min(R.shape[-2], mag_g.shape[-2])
+            return (torch.linalg.norm(R[:, :n] - mag_g[:, :n]) / torch.linalg.norm(mag_g)).item()
+        s_k, s_e = conv_g(rec_g), conv_g(rec_ge)
+        log(f"    spectral convergence through C and D {s_k:.5f}, eager loop from the same seed {s_e:.5f} "
+            f"(must be < {max(1.15 * s_e, s_e + 0.02):.5f}); the invert warm, host clock to the card's end: "
+            f"{t_k:.2f} ms through the kernels, {t_e:.2f} ms eager")
+        require(torch.isfinite(rec_g).all().item() and s_k < max(1.15 * s_e, s_e + 0.02),
+                f"STFT({n_fft}, {hop}) Griffin-Lim: the {route} route converges worse than the eager loop")
+
+    gl_invert(768, 192, "smooth")
+    gl_invert(896, 224, "product")
 
     # A, B, E and F through the entry points: the DGT magnitude chain's and
     # the STFT log-mel chain's fit and forward at 768 (2^8 3: the smooth
@@ -1929,8 +2080,8 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
                              ("fused_melspec_fullk:smooth", "fused_melspec_stats_fullk:smooth"))
     require(regions.melspec_region_ok(768, 256, False) == ("smooth" in regions.table()["fuse_forward"][
         "melspec_fullk"]["routes"]), "regions: E's decision at 768 is not the table's smooth route")
-    fit_forward("DGT(896, 224) magnitude chain (E, F product)", dgt_mag(896, 224),
-                ("fused_melspec_fullk:product", "fused_melspec_stats_fullk:product"))
+    d_fit_y, y_y = fit_forward("DGT(896, 224) magnitude chain (E, F product)", dgt_mag(896, 224),
+                               ("fused_melspec_fullk:product", "fused_melspec_stats_fullk:product"))
     fit_forward("STFT(768, 192) log-mel chain (A, B smooth)", stft_logmel(768, 192),
                 ("fused_melspec:smooth", "fused_melspec_stats:smooth"))
     fit_forward("STFT(896, 224) log-mel chain (A, B factored)", stft_logmel(896, 224),
@@ -1959,30 +2110,37 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     require(torch.isfinite(y_p).all().item() and e_m <= 1e-5 and e_y <= 1e-4,
             "STFT(768, 192) + Polar: the factored route differs from the eager chain")
     del y_p
-    # J on the product route: that chain's pghi_gl inversion (n_fft 768 is no
-    # power of two), converging like the eager loop from the same seed
-    dgt = d_fit[1]
-    draws = dgt._draws
-    zero()
-    rec = d_fit.invert(y_k, inversion_mode="pghi_gl")
-    torch.cuda.synchronize()
-    got = {k: v for k, v in gs.routes.items() if v}
-    log(f"  DGT(768, 256) pghi_gl invert: launches {gs.launches['gl_momentum_fullk']} J, routes {got}")
-    require(got == {"gl_momentum_fullk:product": dgt.gl_iterations} and torch.isfinite(rec).all().item(),
-            "DGT(768, 256) pghi_gl: J must launch on the product route every iteration")
-    counts["gl_momentum_fullk:product"] = got["gl_momentum_fullk:product"]
-    target = d_fit[2].invert(y_k)
-    ph0 = dgt.pghi(target, generator=torch.Generator(device=dev).manual_seed(dgt.seed + draws))
-    rec_e = dgt.griffin_lim(target, init_phase=ph0, fused=False)
+    # J through that chain's pghi_gl inversion, converging like the eager
+    # loop from the same seed: the smooth route at 768/256 (2^8 3), the
+    # product route at 896/224 (2^7 7)
+    def pghi_gl(fit, y, n_fft, hop, route):
+        dgt = fit[1]
+        draws = dgt._draws
+        zero()
+        rec = fit.invert(y, inversion_mode="pghi_gl")
+        torch.cuda.synchronize()
+        got = {k: v for k, v in gs.routes.items() if v}
+        log(f"  DGT({n_fft}, {hop}) pghi_gl invert: launches {gs.launches['gl_momentum_fullk']} J, routes {got}")
+        require(got == {f"gl_momentum_fullk:{route}": dgt.gl_iterations} and torch.isfinite(rec).all().item(),
+                f"DGT({n_fft}, {hop}) pghi_gl: J must launch on the {route} route every iteration")
+        counts[f"gl_momentum_fullk:{route}"] = got[f"gl_momentum_fullk:{route}"]
+        target = fit[2].invert(y)
+        ph0 = dgt.pghi(target, generator=torch.Generator(device=dev).manual_seed(dgt.seed + draws))
+        rec_e = dgt.griffin_lim(target, init_phase=ph0, fused=False)
 
-    def conv(y):
-        R = dgt(y.reshape(-1, y.shape[-1])).abs()
-        n = min(R.shape[-2], target.shape[-2])
-        return (torch.linalg.norm(R[:, :n] - target[:, :n]) / torch.linalg.norm(target)).item()
-    s_j, s_e = conv(rec), conv(rec_e)
-    log(f"    spectral convergence through J {s_j:.5f}, eager loop from the same seed {s_e:.5f} "
-        f"(must be < {max(1.15 * s_e, s_e + 0.02):.5f})")
-    require(s_j < max(1.15 * s_e, s_e + 0.02), "DGT(768, 256) pghi_gl: J converges worse than the eager loop")
+        def conv(v):
+            R = dgt(v.reshape(-1, v.shape[-1])).abs()
+            n = min(R.shape[-2], target.shape[-2])
+            return (torch.linalg.norm(R[:, :n] - target[:, :n]) / torch.linalg.norm(target)).item()
+        s_j, s_e = conv(rec), conv(rec_e)
+        log(f"    spectral convergence through J {s_j:.5f}, eager loop from the same seed {s_e:.5f} "
+            f"(must be < {max(1.15 * s_e, s_e + 0.02):.5f})")
+        require(s_j < max(1.15 * s_e, s_e + 0.02), f"DGT({n_fft}, {hop}) pghi_gl: J converges worse than the eager "
+                                                   "loop")
+        return dgt, target, conv
+
+    dgt, target, conv = pghi_gl(d_fit, y_k, 768, 256, "smooth")
+    pghi_gl(d_fit_y, y_y, 896, 224, "product")
     # K's synthesis on the product route: that chain's pghi inversion,
     # converging like the eager pghi_scan + istft from the same seed
     from acids_transforms_tpu_torch.ops import pghi as pghi_ops
@@ -3316,6 +3474,44 @@ def main() -> int:
     log(f"    the melspec smooth route: plans and shared-memory sizes agree at {n_smooth} shapes (768/256 "
         f"{spectral._kernel_plan(768, 256, None)}, 768/192 {spectral._kernel_plan(768, 192, None)}, 1920/480 "
         f"{spectral._kernel_plan(1920, 480, None)} as (frame tile, FFTs side by side))")
+    # C / D / I and J on the smooth route: every shape their gates take (hop
+    # a multiple of 32, overlap 2 to 8) takes it (no smooth shape falls back
+    # to the product), the plans' layouts at their team counts and one team;
+    # the two instances at most 128 registers (two blocks an SM) and no
+    # spill; the plans count four blocks an SM, which 64 registers allow
+    gl_res = gl_smooth_resources(_build.kernel_resources())
+    for name, res in gl_res.items():
+        log(f"    {name}: {res['registers']} registers, spill stores / loads {res.get('spill_stores', 0)} / "
+            f"{res.get('spill_loads', 0)} B (the Griffin-Lim smooth route; its plans assume four blocks an SM: "
+            f"{'held' if res['registers'] <= 64 else 'NOT held'})")
+    require(len(gl_res) == 2 and all(r["registers"] <= 128 and not r.get("spill_stores") and not r.get("spill_loads")
+                                     for r in gl_res.values()),
+            "the Griffin-Lim smooth instances: two, at most 128 registers, no spill")
+    n_gl = 0
+    for n_fft_s in [n for n in range(64, 4097, 2) if ff.fft_covers_smooth(n)]:
+        for ov_s in range(2, 9):
+            if n_fft_s % ov_s or (n_fft_s // ov_s) % 32:
+                continue
+            hop_s = n_fft_s // ov_s
+            tile_c, teams_c = glstep._step_fft_plan(n_fft_s, hop_s)
+            route_j, rows_j, _, teams_j = glstep._fullk_plan(n_fft_s, hop_s)
+            require(glstep.gl_step_route(n_fft_s, hop_s) == "smooth" and route_j == "smooth",
+                    f"{n_fft_s}/{hop_s}: C, D, I and J must take the smooth route")
+            for tm in sorted({1, teams_c}):
+                require(lib.att_gl_fft_smem_bytes(tile_c, ov_s, hop_s, tm)
+                        == glstep._fft_smem_bytes(tile_c, ov_s, hop_s, tm),
+                        f"{n_fft_s}/{hop_s}: C / D / I's smooth shared-memory size: wrapper and source disagree")
+            for tm in sorted({1, teams_j}):
+                require(lib.att_gl_fullk_fft_smem_bytes(rows_j, hop_s, n_fft_s, tm)
+                        == glstep._fullk_fft_smem_bytes(rows_j, hop_s, n_fft_s, tm),
+                        f"{n_fft_s}/{hop_s}: J's smooth shared-memory size: wrapper and source disagree")
+            require(glstep._fft_smem_bytes(tile_c, ov_s, hop_s, teams_c) <= ff.MAX_SMEM
+                    and glstep._fullk_fft_smem_bytes(rows_j, hop_s, n_fft_s, teams_j) <= ff.MAX_SMEM,
+                    f"{n_fft_s}/{hop_s}: a Griffin-Lim smooth plan exceeds shared memory")
+            n_gl += 1
+    log(f"    the Griffin-Lim smooth route: every one of {n_gl} shapes takes it, plans and shared-memory sizes agree "
+        f"(C / D / I at 768/192 {glstep._step_fft_plan(768, 192)}, 640/160 {glstep._step_fft_plan(640, 160)} as "
+        f"(frames, FFTs); J at 768/256 {glstep._fullk_plan(768, 256)} as (route, chunks, frames, FFTs))")
     # the FFT route of R / the magnitude encode and of E / F: both layouts at
     # every size the route takes, with the plans' team counts and fewer
     n_fft_checked = 0
@@ -3571,9 +3767,12 @@ def main() -> int:
         check_gl(label, att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop, taps_s, w_s, mom,
                  args.seed + n_fft + hop, 1e-4, errs, chain=chain)
     # C and D on the FFT route at the other powers of two it takes (hop
-    # n_fft / 4, at least the kernels' 32; 4096/2048 the widest hop), and on
-    # the product route (n_fft no power of two: 768/192)
-    for n_fft, hop in ((64, 32), (128, 32), (256, 64), (512, 128), (2048, 512), (4096, 2048), (768, 192)):
+    # n_fft / 4, at least the kernels' 32; 4096/2048 the widest hop), on the
+    # smooth route at every SMOOTH_SHAPES framing (even 5-smooth n_fft:
+    # bit-identical to the plain version, every frame of C within 1e-5 of
+    # the float64 oracle), and on the product route (896/224 = 2^7 7)
+    for n_fft, hop in ((64, 32), (128, 32), (256, 64), (512, 128), (2048, 512), (4096, 2048), (896, 224)) \
+            + SMOOTH_SHAPES:
         w_s = get_window("hann", n_fft, device=dev)
         check_gl(f"{n_fft}/{hop} hann", att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop,
                  taps_for_window(w_s), w_s, mom, args.seed + 3 * n_fft + hop, 1e-4, errs,
@@ -4063,12 +4262,12 @@ def main() -> int:
     # against the plain version interior frames within 1e-4, and (hann's edge
     # frames are ill-conditioned on the product route, Queue 3) edge frames
     # no further off the float64 oracle than 10 times the plain version is;
-    # on the FFT route every frame within 1e-6 of the plain version (measured
-    # bit-identical) and 1e-5 of the oracle
+    # on the FFT and the smooth route every frame within 1e-6 of the plain
+    # version (measured bit-identical) and 1e-5 of the oracle
     def check_project(name, mag, n_fft, hop, wname, seed):
         w_s = get_window(wname, n_fft, device=dev)
         taps_s = taps_for_window(w_s)
-        route = "fft" if ff.fft_covers(n_fft) else "product"
+        route = glstep.gl_step_route(n_fft, hop)
         glstep.reset_launches()
         g = torch.Generator(device=dev).manual_seed(seed)
         ph = 2 * math.pi * torch.rand(mag.shape, generator=g, device=dev)
@@ -4095,19 +4294,19 @@ def main() -> int:
         require(all(torch.isfinite(t).all().item() for t in rk), f"I {name}: not finite")
         require(e_in <= 1e-4 and e_k <= max(1e-4, 10 * e_p) and same, f"I {name} disagrees")
         require(glstep.routes[f"gl_project:{route}"] == 1, f"I {name}: not on the {route} route")
-        if route == "fft":
+        if route != "product":
             e_all = max(abs_err(rk[i], rp[i]) for i in (0, 1)) / scale
             bit = torch.equal(rk[0], rp[0]) and torch.equal(rk[1], rp[1])
-            log(f"  I {name} (fft route): every frame vs plain {e_all:.3e} (tol 1e-06; bit-identical {bit}), "
-                f"vs float64 oracle {e_k:.3e} (tol 1e-05)")
-            require(e_all <= 1e-6 and e_k <= 1e-5, f"I {name}: the FFT route out of budget")
-        key = "I" if route == "fft" else "I_product"
+            log(f"  I {name} ({route} route, block {glstep._step_fft_plan(n_fft, hop)}): every frame vs plain "
+                f"{e_all:.3e} (tol 1e-06; bit-identical {bit}), vs float64 oracle {e_k:.3e} (tol 1e-05)")
+            require(e_all <= 1e-6 and e_k <= 1e-5, f"I {name}: the {route} route out of budget")
+        key = {"fft": "I", "smooth": "I_smooth", "product": "I_product"}[route]
         errs[key] = max(errs.get(key, 0.0), max(abs_err(rk[i][:, m:-m], rp[i][:, m:-m]) for i in (0, 1)))
 
     check_project("main shape", gl_mag, N_FFT, HOP, "hann", args.seed + 31)
     check_project("512/128", mag_rag, 512, 128, "hamming", args.seed + 32)
     for n_fft, hop, wname in ((64, 32, "hann"), (256, 64, "blackman"), (2048, 512, "hann"), (4096, 2048, "hann"),
-                              (768, 192, "hann")):
+                              (896, 224, "hann")) + tuple((n, h, "hann") for n, h in SMOOTH_SHAPES):
         w_s = get_window(wname, n_fft, device=dev)
         check_project(f"{n_fft}/{hop}", att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop, wname,
                       args.seed + 5 * n_fft + hop)
@@ -4133,8 +4332,9 @@ def main() -> int:
         glstep.reset_launches()
         step, to_rows, _ = glstep.make_gl_momentum_step_fullk(mag, n_fft, hop, w_s, mom)
         ko = step(*[to_rows(a) for a in st])
+        want = "fft" if ff.fft_covers(n_fft) else ("smooth" if ff.fft_covers_smooth(n_fft) else "product")
         require(glstep.routes[f"gl_momentum_fullk:{route}"] == 1 and sum(glstep.routes.values()) == 1
-                and route == ("fft" if ff.fft_covers(n_fft) else "product"), f"J {name}: not on the {route} route")
+                and route == want, f"J {name}: not on the {want} route")
         env = glstep._env_rows(mag.shape[1], n_fft, hop, w_s)
         po = glstep.gl_momentum_step_fullk_reference(mag, *st, env, n_fft, hop, w_s, mom)
         oo = glstep.gl_momentum_step_fullk_oracle(mag[:16], *[a[:16] for a in st], env, n_fft, hop, w_s, mom)
@@ -4149,10 +4349,10 @@ def main() -> int:
         u = torch.sqrt((po[2] - mom * st[2]) ** 2 + (po[3] - mom * st[3]) ** 2)
         wu = u / u.max()
         e_a = max(((ko[i] - po[i]).abs() * wu).max().item() for i in (0, 1))
-        # the FFT route repeats its plain version's float32 operations in
-        # order (bit-identical on the card): 1e-6; the product route sums in
-        # another order than cuBLAS: 1e-4
-        tol = 1e-6 if route == "fft" else 1e-4
+        # the FFT and the smooth route repeat their plain version's float32
+        # operations in order (bit-identical on the card): 1e-6; the product
+        # route sums in another order than cuBLAS: 1e-4
+        tol = 1e-6 if route != "product" else 1e-4
         same = all(torch.equal(a, b) for a, b in zip(ko, po))
         log(f"  J {name}, {route} route: projection vs plain {e_p:.3e} (tol {tol:.0e}; bit-identical "
             f"{same}), vs float64 oracle {e_o:.3e} (tol 1e-05), vs one eager istft + stft {e_e:.3e} "
@@ -4160,7 +4360,7 @@ def main() -> int:
             f"{glstep._fullk_plan(n_fft, hop)[1:]} (chunks, frames, FFTs or slab)")
         require(all(torch.isfinite(t).all().item() for t in ko), f"J {name}: not finite")
         require(e_p <= tol and e_o <= 1e-5 and e_e <= 1e-5 and e_a <= tol, f"J {name} disagrees")
-        key = "J" if route == "fft" else "J_product"
+        key = {"fft": "J", "smooth": "J_smooth", "product": "J_product"}[route]
         errs[key] = max(errs.get(key, 0.0), max(abs_err(ko[i], po[i]) for i in (2, 3)))
 
     check_fullk("main shape", att.ops.stft(mono, N_FFT, HOP, w_dgt).abs(), N_FFT, HOP, args.seed + 41)
@@ -4175,11 +4375,12 @@ def main() -> int:
         check_fullk(f"{n_fft}/{hop}", att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop,
                     args.seed + n_fft + hop)
     # 4096/512 on the FFT route (its product block would need slabs); the
-    # product route where n_fft is no power of two (768/256) or above 4096
-    # (8192/2048: not even overlap + 2 chunks' whole [re | im] rows fit shared
-    # memory, so J builds them in slabs); a clip of three frames reflects its
-    # trimmed signal twice (L = n_fft / 2)
-    for n_fft, hop in ((4096, 512), (768, 256), (8192, 2048)):
+    # smooth route at every SMOOTH_SHAPES framing (bit-identical to the plain
+    # version); the product route where n_fft is neither (896/224 = 2^7 7)
+    # or above 4096 (8192/2048: not even overlap + 2 chunks' whole [re | im]
+    # rows fit shared memory, so J builds them in slabs); a clip of three
+    # frames reflects its trimmed signal twice (L = n_fft / 2)
+    for n_fft, hop in ((4096, 512), (896, 224), (8192, 2048)) + SMOOTH_SHAPES:
         w_s = gaussian_dgt_window(n_fft, device=dev)
         check_fullk(f"{n_fft}/{hop}", att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop,
                     args.seed + n_fft + hop)
@@ -4226,10 +4427,11 @@ def main() -> int:
         require(counts[k] > 0, f"kernel {k} was not launched on the main path")
     log(f"  C and D by route: { {k: v for k, v in glstep.routes.items() if v} }")
     for k in ("gl_momentum_step", "gl_momentum_chain"):
-        require(glstep.routes[k + ":fft"] == counts[k] and glstep.routes[k + ":product"] == 0,
+        require(glstep.routes[k + ":fft"] == counts[k],
                 f"{k}: the main path's launches must all take the FFT route")
         counts[k + ":fft"] = glstep.routes[k + ":fft"]
-        counts[k + ":product"] = 0      # the product route's launches: phase 4h
+        counts[k + ":smooth"] = 0       # the smooth and the product route's launches: phase 4h
+        counts[k + ":product"] = 0
     log(f"  A and B by route: { {k: v for k, v in spectral.routes.items() if v} }")
     require(spectral.routes["fused_melspec_stats:fft"] == counts["fused_melspec_stats"]
             and spectral.routes["fused_melspec:fft"] == counts["fused_melspec"],
@@ -4547,7 +4749,7 @@ def main() -> int:
     # I has no caller on any of the main paths: its launches there, all summed
     counts["gl_project"] = sum(c["gl_project"] for c in (counts, dgt_counts, r_counts, p_counts, gl_counts))
     require(counts["gl_project"] == 0, "gl_project was launched on a main path")
-    counts["gl_project:fft"] = counts["gl_project:product"] = 0
+    counts["gl_project:fft"] = counts["gl_project:smooth"] = counts["gl_project:product"] = 0
     require(tuple(rec_gl.shape) == (B, 1, HOP * (n_frames - 1)) and torch.isfinite(rec_gl).all().item(),
             f"pghi_gl audio {tuple(rec_gl.shape)}")
     s_j = dgt_convergence(rec_gl.squeeze(-2), dgt_target)
@@ -4665,9 +4867,10 @@ def main() -> int:
     # c_tile + 2 overlap frames (the neighbours' frames synthesized again)
     # and frames_rfft of the tile's frames (fft_design_flops), mag * angles
     # and the update (12 per bin), the leak and the envelope (3 per sample).
-    # Their product route's rows at 768/192 (n_fft no power of two) on the
-    # same clips: that design's chunk products and taps conv, as above; the
-    # chain's halo recomputed.
+    # Their smooth route's rows at 768/192 (2^8 3) on the same clips: the same
+    # with smooth_design_flops at the smooth plan's tile; their product
+    # route's rows at 896/224 (2^7 7): that design's chunk products and taps
+    # conv, as above, the chain's halo recomputed.
     c_tile = glstep._step_fft_plan(N_FFT, HOP)[0]
     c_blocks = B * -(-Tn // c_tile)
     c_flops = (fft_design_flops(N_FFT, c_blocks * (c_tile + 2 * ov)) + fft_design_flops(N_FFT, B * Tn)
@@ -4689,10 +4892,9 @@ def main() -> int:
     fft_g = 2.5 * n_fft_g * math.log2(n_fft_g) * B * Tg
     gl_bytes_g = 9.0 * 4 * el_g + 4.0 * (Tg + ov_g - 1) * hop_g
     gl_need_g = 2 * fft_g + B * Tg * (3.0 * n_fft_g + 12.0 * Fg)
-    gl_flops_g = (2 * 4.0 * B * (Tg + ov_g - 1) * hop_g * Fg + 2 * 8.0 * el_g * ov_g
-                  + 2 * 4.0 * el_g * (2 * len(taps_g) - 1) + 10.0 * el_g)
-    g_tile = glstep._pick_tile(Tg, chain_g, ov_g, hop_g)
-    gl_flops_g_chain = gl_flops_g * (g_tile + 2 * (ov_g - 1) * (chain_g - 1)) / g_tile
+    cg_tile = glstep._step_fft_plan(n_fft_g, hop_g)[0]
+    cg_flops = (smooth_design_flops(n_fft_g, B * -(-Tg // cg_tile) * (cg_tile + 2 * ov_g))
+                + smooth_design_flops(n_fft_g, B * Tg) + 12.0 * el_g + 3.0 * B * (Tg + ov_g - 1) * hop_g)
 
     def lib_stats_g():
         v = torch.log1p(torch.stft(mono, n_fft_g, hop_g, window=w_g, center=True, pad_mode="reflect",
@@ -4749,6 +4951,43 @@ def main() -> int:
     factored_y = (4.0 * B * (Ty + ov_y - 1) * hop_y * Fy + 8.0 * el_y * ov_y
                   + 4.0 * el_y * (2 * len(taps_y) - 1))        # the factored design's front end at 896/224
     smooth_fwd, smooth_stats = melspec_smooth_instance(_build.kernel_resources())
+    gl_res = gl_smooth_resources(_build.kernel_resources())
+    res_c = next(v for k, v in gl_res.items() if "gl_step_fft_kernel" in k)
+    res_j = next(v for k, v in gl_res.items() if "gl_fullk_fft_kernel" in k)
+    # C, D and I's product route at 896/224 (2^7 7) on the same clips
+    mag_gy = att.ops.stft(mono, n_fft_y, hop_y, w_y).abs()
+    gy = torch.Generator(device=dev).manual_seed(args.seed + 56)
+    ph_y = 2 * math.pi * torch.rand(mag_gy.shape, generator=gy, device=dev)
+    y_st = (torch.cos(ph_y), torch.sin(ph_y), torch.zeros_like(ph_y), torch.zeros_like(ph_y))
+    del ph_y
+    env_y = glstep._env_rows(Ty, n_fft_y, hop_y, w_y)
+    chain_y = glstep.gl_max_chain(n_fft_y, hop_y, 4)
+    require(glstep.gl_step_route(n_fft_y, hop_y) == "product" and glstep.gl_step_route(n_fft_g, hop_g) == "smooth"
+            and chain_g == chain_y == 4, "phase 5: C, D and I must be smooth at 768/192 and product at 896/224")
+    step1_y = glstep.make_gl_momentum_step(mag_gy, n_fft_y, hop_y, taps_y, w_y, mom)[0]
+    step4_y = glstep.make_gl_momentum_step(mag_gy, n_fft_y, hop_y, taps_y, w_y, mom, iters=chain_y)[0]
+    gl_bytes_y = 9.0 * 4 * el_y + 4.0 * (Ty + ov_y - 1) * hop_y
+    gl_need_y = 2 * fft_y + B * Ty * (3.0 * n_fft_y + 12.0 * Fy)
+    gl_flops_y = (2 * 4.0 * B * (Ty + ov_y - 1) * hop_y * Fy + 2 * 8.0 * el_y * ov_y
+                  + 2 * 4.0 * el_y * (2 * len(taps_y) - 1) + 10.0 * el_y)
+    y_tile = glstep._pick_tile(Ty, chain_y, ov_y, hop_y)
+    gl_flops_y_chain = gl_flops_y * (y_tile + 2 * (ov_y - 1) * (chain_y - 1)) / y_tile
+
+    def lib_gl_y(iters):
+        a = torch.complex(y_st[0], y_st[1])
+        tp = torch.complex(y_st[2], y_st[3])
+        for _ in range(iters):
+            sig = torch.istft((mag_gy * a).transpose(-2, -1), n_fft_y, hop_y, window=w_y)
+            reb = torch.stft(sig, n_fft_y, hop_y, window=w_y, center=True, pad_mode="reflect",
+                             return_complex=True).transpose(-2, -1)
+            u = reb - mom * tp
+            a, tp = u / u.abs().clamp_min(1e-16), reb
+        return a, tp
+
+    def lib_project_y():
+        sig = torch.istft((mag_gy * torch.complex(y_st[0], y_st[1])).transpose(-2, -1), n_fft_y, hop_y, window=w_y)
+        return torch.stft(sig, n_fft_y, hop_y, window=w_y, center=True, pad_mode="reflect", return_complex=True)
+
     specs = [
         dict(key="A", name="fused_melspec", front_end="fft",
              source="acids_transforms_tpu_torch/csrc/spectral.cu (+ csrc/fft_smem.cuh)",
@@ -4827,12 +5066,20 @@ def main() -> int:
              library=lambda: lib_gl(1),
              bound=bound_of(gl_bytes, gl_need),
              ceiling=ceiling_of(c_flops)),
+        dict(key="C_smooth", name="gl_momentum_step_smooth", front_end="smooth",
+             source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/glstep.py:294",
+             launches=counts["gl_momentum_step:smooth"],
+             run=lambda: step1_g(*g_st),
+             plain=lambda: glstep.gl_momentum_step_reference(mag_g, *g_st, env_g, n_fft_g, hop_g, taps_g, mom, 1),
+             library=lambda: lib_gl_g(1), bound=bound_of(gl_bytes_g, gl_need_g), ceiling=ceiling_of(cg_flops),
+             resources=res_c),
         dict(key="C_product", name="gl_momentum_step_product", front_end="product",
              source="acids_transforms_tpu_torch/csrc/glstep.cu", replaces="acids_transforms_tpu/ops/pallas/glstep.py:294",
              launches=counts["gl_momentum_step:product"],
-             run=lambda: step1_g(*g_st),
-             plain=lambda: glstep.gl_momentum_step_reference(mag_g, *g_st, env_g, n_fft_g, hop_g, taps_g, mom, 1),
-             library=lambda: lib_gl_g(1), bound=bound_of(gl_bytes_g, gl_need_g), ceiling=ceiling_of(gl_flops_g)),
+             run=lambda: step1_y(*y_st),
+             plain=lambda: glstep.gl_momentum_step_reference(mag_gy, *y_st, env_y, n_fft_y, hop_y, taps_y, mom, 1),
+             library=lambda: lib_gl_y(1), bound=bound_of(gl_bytes_y, gl_need_y), ceiling=ceiling_of(gl_flops_y)),
         dict(key="D", name="gl_momentum_chain", front_end="fft",
              source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:326",
@@ -4843,14 +5090,23 @@ def main() -> int:
              library=lambda: lib_gl(4),
              bound=bound_of(gl_bytes, 4 * gl_need),
              ceiling=ceiling_of(4 * c_flops)),
-        dict(key="D_product", name="gl_momentum_chain_product", front_end="product",
-             source="acids_transforms_tpu_torch/csrc/glstep.cu", replaces="acids_transforms_tpu/ops/pallas/glstep.py:326",
-             launches=counts["gl_momentum_chain:product"],
+        dict(key="D_smooth", name="gl_momentum_chain_smooth", front_end="smooth",
+             source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/glstep.py:326",
+             launches=counts["gl_momentum_chain:smooth"],
              run=lambda: step4_g(*g_st),
              plain=lambda: glstep.gl_momentum_step_reference(mag_g, *g_st, env_g, n_fft_g, hop_g, taps_g, mom,
                                                              chain_g),
              library=lambda: lib_gl_g(chain_g), bound=bound_of(gl_bytes_g, chain_g * gl_need_g),
-             ceiling=ceiling_of(chain_g * gl_flops_g_chain)),
+             ceiling=ceiling_of(chain_g * cg_flops), resources=res_c),
+        dict(key="D_product", name="gl_momentum_chain_product", front_end="product",
+             source="acids_transforms_tpu_torch/csrc/glstep.cu", replaces="acids_transforms_tpu/ops/pallas/glstep.py:326",
+             launches=counts["gl_momentum_chain:product"],
+             run=lambda: step4_y(*y_st),
+             plain=lambda: glstep.gl_momentum_step_reference(mag_gy, *y_st, env_y, n_fft_y, hop_y, taps_y, mom,
+                                                             chain_y),
+             library=lambda: lib_gl_y(chain_y), bound=bound_of(gl_bytes_y, chain_y * gl_need_y),
+             ceiling=ceiling_of(chain_y * gl_flops_y_chain)),
     ]
     # ---- the DGT path's kernels.  E and F: the same function as A and B
     # under another window (no mel), so the same bound.  On the main path they
@@ -4863,7 +5119,7 @@ def main() -> int:
     kw_e = dict(mel_bank=None, offset=dgt_fit[2].norm.offset, scale=dgt_fit[2].norm.scale,
                 contrast="log1p", taps=None, window=dgt_f.window)
     e_need = fft_flops + B * Tn * (N_FFT + 7.0 * F)
-    n_fft_p, hop_p = 768, 256                                # the product route's shape
+    n_fft_p, hop_p = 768, 256      # E, F, J smooth; G, H full-K and K's synthesis product
     Tp, Fp = 1 + L // hop_p, n_fft_p // 2 + 1
     w_p = gaussian_dgt_window(n_fft_p, device=dev)
     kw_p = dict(kw_e, window=w_p)
@@ -5174,8 +5430,9 @@ def main() -> int:
     # Its FFT route runs, per block of tile_t frames, frames_irfft of tile_t
     # + 2 overlap frames (the halo recomputed) and frames_rfft of the tile's
     # frames (fft_design_flops each), mag * angles and the momentum update
-    # (12 per bin) and the envelope division.  The product route (768/256
-    # here, on the same clips) runs, per block of R chunks and tile_t frames,
+    # (12 per bin) and the envelope division; its smooth route (768/256 here,
+    # on the same clips) the same with smooth_design_flops.  The product
+    # route (896/224, 2^7 7) runs, per block of R chunks and tile_t frames,
     # the synthesis product (R chunks x overlap x Kp x hop) and the analysis
     # product (tile_t frames x n_fft x 2 x 128-column tiles).
     def j_state(shape, seed):
@@ -5195,12 +5452,24 @@ def main() -> int:
     jp_st = j_state(jp_target.shape, args.seed + 53)
     jp_step, _, _ = glstep.make_gl_momentum_step_fullk(jp_target, n_fft_p, hop_p, w_jp, mom)
     jp_env = glstep._env_rows(Tp, n_fft_p, hop_p, w_jp)
-    _, jp_rows, jp_tile, jp_slab = glstep._fullk_plan(n_fft_p, hop_p)
+    jp_route, _, jp_tile, _ = glstep._fullk_plan(n_fft_p, hop_p)
     jp_blocks = B * -(-Tp // jp_tile)
-    jp_flops = 2.0 * jp_blocks * (jp_rows * (n_fft_p // hop_p) * pghi_kernel._k_padded(Fp) * hop_p
-                                  + jp_tile * n_fft_p * 2 * 128 * -(-Fp // 128)) + 10.0 * el_p
-    jp_bytes = 9.0 * 4 * el_p + 4.0 * (Tp + n_fft_p // hop_p - 1) * hop_p
+    ov_p = n_fft_p // hop_p
+    jp_flops = (smooth_design_flops(n_fft_p, jp_blocks * (jp_tile + 2 * ov_p)) + smooth_design_flops(n_fft_p, B * Tp)
+                + 12.0 * el_p + float(B * (Tp + ov_p - 1) * hop_p))
+    jp_bytes = 9.0 * 4 * el_p + 4.0 * (Tp + ov_p - 1) * hop_p
     jp_need = 2 * fft_p + B * Tp * (3.0 * n_fft_p + 12.0 * Fp)
+    w_jy = gaussian_dgt_window(n_fft_y, device=dev)
+    jy_target = att.ops.stft(mono, n_fft_y, hop_y, w_jy).abs()
+    jy_st = j_state(jy_target.shape, args.seed + 54)
+    jy_step, _, _ = glstep.make_gl_momentum_step_fullk(jy_target, n_fft_y, hop_y, w_jy, mom)
+    jy_env = glstep._env_rows(Ty, n_fft_y, hop_y, w_jy)
+    jy_route, jy_rows, jy_tile, _ = glstep._fullk_plan(n_fft_y, hop_y)
+    require(jp_route == "smooth" and jy_route == "product", "phase 5: J must be smooth at 768/256, product at 896/224")
+    jy_flops = 2.0 * B * -(-Ty // jy_tile) * (jy_rows * ov_y * pghi_kernel._k_padded(Fy) * hop_y
+                                              + jy_tile * n_fft_y * 2 * 128 * -(-Fy // 128)) + 10.0 * el_y
+    jy_bytes = 9.0 * 4 * el_y + 4.0 * (Ty + ov_y - 1) * hop_y
+    jy_need = 2 * fft_y + B * Ty * (3.0 * n_fft_y + 12.0 * Fy)
 
     def lib_gl_fullk(target, st, n_fft, hop, w):
         a = torch.complex(st[0], st[1])
@@ -5278,14 +5547,23 @@ def main() -> int:
              run=lambda: glstep.gl_project(gl_mag, *i_state, N_FFT, HOP, taps_main, window),
              plain=lambda: glstep.gl_project_reference(gl_mag, *i_state, N_FFT, HOP, taps_main, window),
              library=lib_project, bound=bound_of(i_bytes, i_need), ceiling=ceiling_of(c_flops - 10.0 * n_el)),
-        dict(key="I_product", name="gl_project_product", front_end="product",
-             source="acids_transforms_tpu_torch/csrc/glstep.cu", replaces="acids_transforms_tpu/ops/pallas/glstep.py:236",
-             launches=counts["gl_project:product"],
+        dict(key="I_smooth", name="gl_project_smooth", front_end="smooth",
+             source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/glstep.py:236",
+             launches=counts["gl_project:smooth"],
              run=lambda: glstep.gl_project(mag_g, g_st[0], g_st[1], n_fft_g, hop_g, taps_g, w_g),
              plain=lambda: glstep.gl_project_reference(mag_g, g_st[0], g_st[1], n_fft_g, hop_g, taps_g, w_g),
              library=lib_project_g, bound=bound_of(5.0 * 4 * el_g + 4.0 * (Tg + ov_g - 1) * hop_g,
                                                    2 * fft_g + B * Tg * (3.0 * n_fft_g + 2.0 * Fg)),
-             ceiling=ceiling_of(gl_flops_g - 10.0 * el_g)),
+             ceiling=ceiling_of(cg_flops - 10.0 * el_g), resources=res_c),
+        dict(key="I_product", name="gl_project_product", front_end="product",
+             source="acids_transforms_tpu_torch/csrc/glstep.cu", replaces="acids_transforms_tpu/ops/pallas/glstep.py:236",
+             launches=counts["gl_project:product"],
+             run=lambda: glstep.gl_project(mag_gy, y_st[0], y_st[1], n_fft_y, hop_y, taps_y, w_y),
+             plain=lambda: glstep.gl_project_reference(mag_gy, y_st[0], y_st[1], n_fft_y, hop_y, taps_y, w_y),
+             library=lib_project_y, bound=bound_of(5.0 * 4 * el_y + 4.0 * (Ty + ov_y - 1) * hop_y,
+                                                   2 * fft_y + B * Ty * (3.0 * n_fft_y + 2.0 * Fy)),
+             ceiling=ceiling_of(gl_flops_y - 10.0 * el_y)),
         dict(key="J", name="gl_momentum_fullk", front_end="fft",
              source="acids_transforms_tpu_torch/csrc/glstep_fullk.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:571",
@@ -5295,15 +5573,24 @@ def main() -> int:
                                                                    dgt_f.inv_window, mom),
              library=lambda: lib_gl_fullk(dgt_target, j_st, N_FFT, HOP, dgt_f.inv_window),
              bound=bound_of(gl_bytes, gl_need), ceiling=ceiling_of(j_flops)),
-        dict(key="J_product", name="gl_momentum_fullk_product", front_end="product",
-             source="acids_transforms_tpu_torch/csrc/glstep_fullk.cu (+ csrc/synth_ola.cuh, csrc/dft_common.cuh)",
+        dict(key="J_smooth", name="gl_momentum_fullk_smooth", front_end="smooth",
+             source="acids_transforms_tpu_torch/csrc/glstep_fullk.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:571",
-             launches=counts["gl_momentum_fullk:product"],
+             launches=counts["gl_momentum_fullk:smooth"],
              run=lambda: jp_step(*jp_st),
              plain=lambda: glstep.gl_momentum_step_fullk_reference(jp_target, *jp_st, jp_env, n_fft_p, hop_p,
                                                                    w_jp, mom),
              library=lambda: lib_gl_fullk(jp_target, jp_st, n_fft_p, hop_p, w_jp),
-             bound=bound_of(jp_bytes, jp_need), ceiling=ceiling_of(jp_flops)),
+             bound=bound_of(jp_bytes, jp_need), ceiling=ceiling_of(jp_flops), resources=res_j),
+        dict(key="J_product", name="gl_momentum_fullk_product", front_end="product",
+             source="acids_transforms_tpu_torch/csrc/glstep_fullk.cu (+ csrc/synth_ola.cuh, csrc/dft_common.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/glstep.py:571",
+             launches=counts["gl_momentum_fullk:product"],
+             run=lambda: jy_step(*jy_st),
+             plain=lambda: glstep.gl_momentum_step_fullk_reference(jy_target, *jy_st, jy_env, n_fft_y, hop_y,
+                                                                   w_jy, mom),
+             library=lambda: lib_gl_fullk(jy_target, jy_st, n_fft_y, hop_y, w_jy),
+             bound=bound_of(jy_bytes, jy_need), ceiling=ceiling_of(jy_flops)),
     ]
     # ---- the streaming sessions at phase 4f's shape (64 mono sessions of
     # 4 s, 688 frames each).  Bounds: R reads the signal and writes the
@@ -5904,6 +6191,18 @@ def main() -> int:
         log(f"  smooth plan sweep {shape} (E + F b2b, ms; tile x FFTs, KB, blocks an SM): " + "; ".join(
             f"{p['tile']} x {p['teams']} ({p['smem_kb']:.1f} KB, {p['blocks']}) {p['e_ms']:.3f} + {p['f_ms']:.3f}"
             for p in r["rows"]) + f"; the rule's pick {r['pick']} {100 * r['over']:+.1f}% over the best {r['best']}")
+    # C, D, I and J at 768 on the product instance against the smooth one, in
+    # turns (reported, not gated): what the smooth route changed
+    turns = gl_route_turns(mono, args.repeats)
+    log("  GL product vs smooth instance at 768/192 (C, D, I) and 768/256 (J), in turns product, smooth, smooth, "
+        "product (b2b ms): " + "; ".join(
+            f"{k} {' / '.join(f'{v:.3f}' for v in turns[('product', k)])} -> "
+            f"{' / '.join(f'{v:.3f}' for v in turns[('smooth', k)])}" for k in "CDIJ"))
+    # C and J on the smooth route under every plan (reported, not gated)
+    for label, r in gl_plan_sweep(mono, args.repeats).items():
+        log(f"  GL smooth plan sweep {label} (b2b ms; frames x FFTs): " + "; ".join(
+            f"{p['tile']} x {p['teams']} {p['ms']:.3f}" for p in r["rows"])
+            + f"; the rule's pick {r['pick']} {100 * r['over']:+.1f}% over the best {r['best']}")
 
     # O's host share: a chunk's polish (one launch) and, for the grids the
     # polish does not take, a projection's two launches, enqueued back to
@@ -5951,7 +6250,8 @@ def main() -> int:
     sweep_phase(args, dev, mono, bank, off, scl, taps_main, kernels, bound_of,
                 (spectral, glstep, pghi_kernel, ss))
     # every row's kernel ran on a path of this run, except I's (no caller)
-    idle = [r["name"] for r in kernels if r["launches"] < 1 and r["name"] not in ("gl_project", "gl_project_product")]
+    idle = [r["name"] for r in kernels
+            if r["launches"] < 1 and r["name"] not in ("gl_project", "gl_project_smooth", "gl_project_product")]
     require(not idle, f"kernels launched no time on their paths: {idle}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -218,10 +218,12 @@ def test_l_and_m_product_route_vs_oracle(random):
 
 
 def test_route_rule():
-    """``n_fft`` alone picks the route of J, L and M."""
+    """``n_fft`` alone picks the route of L and M, ``(n_fft, hop)`` J's (the
+    smooth route where its block fits: at every even 5-smooth shape J takes)."""
     assert PG._fullk_plan(1024, 256) == ("fft", 60, 56, 4)
     assert PG._fullk_plan(4096, 512)[0] == "fft" and PG._fullk_plan(2048, 256)[0] == "fft"
-    assert PG._fullk_plan(768, 256)[0] == "product" and PG._fullk_plan(8192, 2048)[0] == "product"
+    assert PG._fullk_plan(768, 256)[0] == "smooth" and PG._fullk_plan(8192, 2048)[0] == "product"
+    assert PG._fullk_plan(896, 224)[0] == "product"                # 2^7 7: neither the FFT nor the smooth route
     assert PG._fullk_plan(8192, 2048)[3] == 1056                   # slabs of 1056 columns
     assert PK._roundtrip_plan(1024, 256) == (24, 4)
     # 1200 and 960 (5-smooth) take the smooth route; 1344 = 2^6 3 7 the product
@@ -244,21 +246,23 @@ def _shapes():
 
 def test_no_shape_covered_before_now_raises():
     """Every shape the full-K step and the roundtrip sessions took before the
-    FFT route (the product's plans, which the code still computes) keeps a
-    block, short clips included, and the FFT route's blocks keep their
-    kernels' conditions."""
+    FFT and smooth routes (the product's plans, which the code still
+    computes) keeps a block, short clips included, and the FFT and smooth
+    routes' blocks keep their kernels' conditions."""
     for n, hop in _shapes():
         ov = n // hop
         if PG.gl_fullk_available(n, hop) and PG._pick_fullk_block(n, hop) is not None:
             old = PG._pick_fullk_block(n, hop)
             plan = PG._fullk_plan(n, hop)
             assert plan is not None and (plan[0] == "fft") == fft_covers(n), (n, hop)
+            assert (plan[0] == "smooth") == fft_covers_smooth(n), (n, hop)
             for T in range(2, 13):
                 if PG._fullk_reflection_covered(T, n, hop, old[0], old[1]):
                     assert PG._fullk_reflection_covered(T, n, hop, plan[1], plan[2]), (n, hop, T)
-            if plan[0] == "fft":
+            if plan[0] != "product":
                 route, rows, tile_t, teams = plan
-                assert tile_t % (2 * ov) == 0 and rows == tile_t + ov and 1 <= teams <= 4096 // n
+                most = 4096 // n if fft_covers(n) else fft_smooth_max_teams(n)
+                assert tile_t % (2 * ov) == 0 and rows == tile_t + ov and 1 <= teams <= most
                 assert PG._fullk_fft_smem_bytes(rows, hop, n, teams) <= PG.MAX_SMEM
         if PK.kernel_covers("roundtrip", n, hop):
             rows, teams = PK._roundtrip_plan(n, hop)
@@ -292,8 +296,6 @@ def test_pghi_gl_on_the_fft_schedule_converges_like_the_eager_loop():
     s_e = sc(dgt.griffin_lim(m, init_phase=ph, fused=False))
     assert s_k < max(1.15 * s_e, s_e + 0.02)
     assert s_k < sc(dgt.invert(torch.polar(m, ph)))               # the polish improves on the seed
-    assert not any(PG.routes.values()) and set(PG.routes) == {"gl_momentum_fullk:fft",
-                                                              "gl_momentum_fullk:product",
-                                                              "gl_momentum_step:fft", "gl_momentum_step:product",
-                                                              "gl_momentum_chain:fft", "gl_momentum_chain:product",
-                                                              "gl_project:fft", "gl_project:product"}
+    assert not any(PG.routes.values()) and set(PG.routes) == {
+        k + ":" + r for k in ("gl_momentum_fullk", "gl_momentum_step", "gl_momentum_chain", "gl_project")
+        for r in ("fft", "smooth", "product")}
