@@ -33,12 +33,14 @@
 // and, as the mixed-radix route (template argument kSmooth = true) where
 // fft_covers_smooth() takes n_fft (even, 2^a 3^b 5^c, 64 to 4096, no power of
 // two: 1200, 960, 768, 400, 1920, ...), in R, the magnitude encode of N, L, M,
-// the decodes P, S and O's projection synthesis, E and F (so A and B), and
-// the Griffin-Lim steps J, C, D and I (session_encode_kernel<., true, true>,
-// session_roundtrip_fft_kernel<., true>, session_decode_fft_kernel<., true>,
-// spectral.cu:block_magnitudes<., kFrontSmooth>, glstep_fullk.cu:
-// gl_fullk_fft_kernel<true>, glstep.cu:gl_step_fft_kernel<true>); every other
-// kernel keeps its product route at those sizes.
+// the decodes P, S and O's projection synthesis, E and F (so A and B), the
+// Griffin-Lim steps J, C, D and I, K's synthesis and O's polish
+// (session_encode_kernel<., true, true>, session_roundtrip_fft_kernel<., true>,
+// session_decode_fft_kernel<., true>, spectral.cu:block_magnitudes<.,
+// kFrontSmooth>, glstep_fullk.cu:gl_fullk_fft_kernel<true>,
+// glstep.cu:gl_step_fft_kernel<true>, pghi.cu:pghi_synthesize_fft_kernel<true>,
+// stream_step.cu:gl_polish_fft_kernel<., true>); every other kernel (G, H, O's
+// analysis) keeps its product route at those sizes.
 //
 // What they compute.  frames_rfft: X_r[k] = sum_n w[n] xs[r hop + n] e^{-2 pi
 // i n k / n} for k <= n / 2 of every frame r < n_frames of a sample buffer

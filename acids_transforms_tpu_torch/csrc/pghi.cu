@@ -8,7 +8,8 @@
 //                           <- _pghi_invert_kernel, synthesis part (phases_in), with
 //                              ops/pallas/ola.py:ola_accumulate: the FFT route
 //                              (fft_smem.cuh:frames_irfft) where n_fft is a power of
-//                              two from 64 to 4096, the product route elsewhere
+//                              two from 64 to 4096, its mixed-radix instance where
+//                              fft_covers_smooth(n_fft), the product route elsewhere
 // pghi_invert_fused is the recurrence followed by the synthesis.  And from
 // ops/pallas/stream_step.py:
 //   rt_pghi_phases_kernel   <- _rt_pghi_phases, the recurrence of the streaming
@@ -119,7 +120,10 @@
 // sample's rounding depends on the block that computed it: the plain version
 // (ops/cuda/pghi_kernel.py:pghi_synthesize_fused_reference) runs
 // frames_irfft_reference and overlap_add_classes over the whole clip and
-// repeats it.  No basis.
+// repeats it.  No basis.  Where fft_covers_smooth(n_fft) (even, 2^a 3^b
+// 5^c, no power of two) the same kernel's kSmooth instance runs frames_irfft's
+// mixed-radix stages (plain version: frames_irfft_reference(..., smooth=True)
+// under irfft_window(..., smooth=True)).
 //
 // Synthesis, product route (pghi_synthesize_kernel, every other n_fft): see
 // synth_ola.cuh.  A block computes mag * (cos, sin)(phase) of its R + overlap
@@ -1133,10 +1137,10 @@ struct SynthFftArgs {
     int T, F, hop, overlap, rows, teams, n_tiles;
 };
 
-// The samples of `rows` chunks, then frames_rfft's area, whose window slot
-// holds wsyn.
+// The samples of `rows` chunks, then frames_rfft's area (that of the route n
+// takes), whose window slot holds wsyn.
 __host__ __device__ inline size_t pghi_synth_fft_smem_floats(int rows, int hop, int n, int teams) {
-    return (size_t)rows * hop + fft_smem_floats(n, teams);
+    return (size_t)rows * hop + fft_area_floats(n, teams);
 }
 
 // K's synthesis on the FFT route: a block owns one clip and the output chunks
@@ -1146,23 +1150,28 @@ __host__ __device__ inline size_t pghi_synth_fft_smem_floats(int rows, int hop, 
 // clip's (f, f + overlap) for f mod 2 overlap < overlap; the first group's
 // first frames, and frames outside [0, T), are synthesized or loaded as zeros
 // but add nothing.  Each sample collects its frames in class order f mod
-// overlap.
+// overlap.  kSmooth: the mixed-radix instance (fft_covers_smooth(n_fft):
+// frames_irfft's mixed-radix stages, twiddles j < fft_smooth_table(n), wsyn
+// with the 1 / n fold rounded once from float64; plan
+// pghi_kernel._synth_fft_plan), the decode's smooth route with the pairs
+// counted from frame c0 - 2 overlap.
+template <bool kSmooth>
 __global__ void __launch_bounds__(kThreads, 2) pghi_synthesize_fft_kernel(SynthFftArgs a) {
     extern __shared__ __align__(16) float smem[];
     const int R = a.rows, T = a.T, F = a.F, hop = a.hop, ov = a.overlap;
     const int n = ov * hop;
     float* samples = smem;  // [R][hop]
-    const FftSmem fs = carve_fft(samples + (size_t)R * hop, n);
+    const FftSmem fs = carve_fft<kSmooth>(samples + (size_t)R * hop, n);
     const long long blk = blockIdx.x;
     const long long b = blk / a.n_tiles;
     const int c0 = (int)(blk - b * a.n_tiles) * R;
     const int n_chunks = T + ov - 1;
     const size_t bofs = (size_t)b * T * F;
-    fft_stage(a.wsyn, a.fft_tw, fs, n);  // wsyn in the window's slot
+    fft_stage<kSmooth>(a.wsyn, a.fft_tw, fs, n);  // wsyn in the window's slot
     for (int i = threadIdx.x; i < R * hop; i += kThreads) samples[i] = 0.0f;
     const int f0 = c0 - 2 * ov;
     // frames_irfft starts with a barrier and ends with one
-    frames_irfft(
+    frames_irfft<kSmooth>(
         min(R + 2 * ov, T - f0), ov, n, fs, fs.win, a.teams,
         [&](int r, int k, float& re, float& im) {
             const int f = f0 + r;
@@ -1377,18 +1386,22 @@ int att_pghi_synthesize(const float* mag, const float* phases, const float* basi
 }
 
 // K's synthesis on the FFT route.  mag, phases: (B, T, F) float32 with F =
-// n_fft / 2 + 1, n_fft = overlap * hop a power of two from 64 to 4096; wsyn
-// (n_fft,) the synthesis window / n_fft; fft_tw (2, n_fft) = (cos, -sin)(2 pi
-// j / n_fft); out: (B, (T + overlap - 1) * hop), every sample written.  rows
-// output chunks per block, a multiple of 2 overlap; 1 <= teams <= 4096 /
-// n_fft FFTs side by side.  Returns a cudaError_t.
+// n_fft / 2 + 1, n_fft = overlap * hop a power of two from 64 to 4096 (1 <=
+// teams <= 4096 / n_fft FFTs side by side), or on the smooth route where
+// fft_covers_smooth(n_fft) (1 <= teams <= fft_smooth_max_teams(n_fft)); wsyn
+// (n_fft,) the synthesis window / n_fft (frames_fft.irfft_window); fft_tw (2,
+// n_fft) = (cos, -sin)(2 pi j / n_fft); out: (B, (T + overlap - 1) * hop),
+// every sample written.  rows output chunks per block, a multiple of 2
+// overlap.  Returns a cudaError_t.
 int att_pghi_synthesize_fft(const float* mag, const float* phases, const float* wsyn,
                             const float* fft_tw, float* out, long long B, int T, int F, int hop,
                             int overlap, int rows, int teams, void* stream) {
     using namespace att;
     const int n_fft = overlap * hop;
-    if (B < 1 || T < 1 || overlap < 2 || !fft_covers(n_fft) || F != n_fft / 2 + 1 || rows < 1 ||
-        rows % (2 * overlap) != 0 || teams < 1 || teams > fft_max_teams(n_fft)) {
+    const bool smooth = !fft_covers(n_fft);
+    const int max_teams = smooth ? fft_smooth_max_teams(n_fft) : fft_max_teams(n_fft);
+    if (B < 1 || T < 1 || overlap < 2 || (smooth && !fft_covers_smooth(n_fft)) || F != n_fft / 2 + 1 ||
+        rows < 1 || rows % (2 * overlap) != 0 || teams < 1 || teams > max_teams) {
         return (int)cudaErrorInvalidValue;
     }
     SynthFftArgs a;
@@ -1405,10 +1418,17 @@ int att_pghi_synthesize_fft(const float* mag, const float* phases, const float* 
     a.teams = teams;
     a.n_tiles = (T + overlap - 1 + rows - 1) / rows;
     const size_t smem = pghi_synth_fft_smem_floats(rows, hop, n_fft, teams) * sizeof(float);
-    cudaError_t err = pghi_allow_smem(pghi_synthesize_fft_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    pghi_synthesize_fft_kernel<<<dim3((unsigned)(B * a.n_tiles)), kThreads, smem,
-                                 (cudaStream_t)stream>>>(a);
+    const dim3 grid((unsigned)(B * a.n_tiles));
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
+#define ATT_LAUNCH_SYNF(SMOOTH)                                                    \
+    do {                                                                           \
+        err = pghi_allow_smem(pghi_synthesize_fft_kernel<SMOOTH>, smem);           \
+        if (err != cudaSuccess) return (int)err;                                   \
+        pghi_synthesize_fft_kernel<SMOOTH><<<grid, kThreads, smem, s>>>(a);        \
+    } while (0)
+    if (smooth) ATT_LAUNCH_SYNF(true); else ATT_LAUNCH_SYNF(false);
+#undef ATT_LAUNCH_SYNF
     return (int)cudaGetLastError();
 }
 

@@ -20,9 +20,10 @@
 //                                    <- the same two (and O's projection synthesis) where
 //                                       n_fft is a power of two from 64 to 4096 (the FFT route);
 //                                       its kSmooth instances where fft_covers_smooth(n_fft)
-//   gl_polish_fft_kernel<.>          <- the Griffin-Lim polish of _session_pghi_gl_kernel (O):
+//   gl_polish_fft_kernel<., .>       <- the Griffin-Lim polish of _session_pghi_gl_kernel (O):
 //                                       every projection of a chunk in one launch, where n_fft
-//                                       is a power of two from 64 to 4096 and the grid fits
+//                                       is a power of two from 64 to 4096 (kSmooth = false) or
+//                                       fft_covers_smooth(n_fft) (kSmooth) and the grid fits
 //   gl_project_analysis_kernel       <- the projection of _session_pghi_gl_kernel (O), its
 //                                       analysis and atan2; with session_decode_kernel<., false>
 //                                       as its synthesis (every other shape); pghi.cu's
@@ -99,7 +100,9 @@
 // overlap - 1 zero frames).  Within a chunk the iterations do not depend on
 // the host (the pinned and frozen rows are fixed for the chunk) and the
 // sessions are independent, so where n_fft is a power of two from 64 to 4096
-// the polish is one launch, gl_polish_fft_kernel: a block per session runs
+// or fft_covers_smooth(n_fft) and the block holds the grid, the polish is one
+// launch, gl_polish_fft_kernel (kSmooth: its mixed-radix instance): a block
+// per session runs
 // every iteration with the grid's overlap-add signal (and, where it fits, the
 // grid's magnitudes and phases) in shared memory, as the TPU kernel runs its
 // iterations in VMEM.  Elsewhere each iteration is two launches: P's synthesis
@@ -612,7 +615,10 @@ __global__ void __launch_bounds__(kThreads) gl_project_analysis_kernel(GlProject
                    ct, ct + 1);
 }
 
-// O's polish on the FFT route (n_fft a power of two from 64 to 4096): one
+// O's polish on the FFT route (n_fft a power of two from 64 to 4096) and,
+// with kSmooth, on the smooth route (fft_covers_smooth(n_fft): frames_irfft's
+// and frames_rfft's mixed-radix stages, twiddles j < fft_smooth_table(n), wsyn
+// with the 1 / n fold rounded once from float64): one
 // block per session runs all `iters` projections of its grid of Tp = Tx +
 // overlap - 1 frames (the last overlap - 1 of zero magnitude).  Each:
 // * synthesis: frames_irfft of every grid frame, bins mag * (cos, sin)(phase)
@@ -646,15 +652,16 @@ struct GlPolishArgs {
     int Tp, Tx, ctx, keep_lo, keep_hi, F, hop, overlap, iters, teams;
 };
 
-// The polish's block: y (Tp hop), frames_rfft's area, wsyn (n_fft), and where
-// resident the grid's magnitudes and phases (Tp F each).
+// The polish's block: y (Tp hop), frames_rfft's area (that of the route n_fft
+// takes), wsyn (n_fft), and where resident the grid's magnitudes and phases
+// (Tp F each).
 __host__ __device__ inline size_t polish_smem_floats(int Tp, int hop, int n_fft, int teams, bool resident) {
     const int F = n_fft / 2 + 1;
-    return (size_t)Tp * hop + fft_smem_floats(n_fft, teams) + (size_t)n_fft +
+    return (size_t)Tp * hop + fft_area_floats(n_fft, teams) + (size_t)n_fft +
            (resident ? 2 * (size_t)Tp * F : 0);
 }
 
-template <bool kResident>
+template <bool kResident, bool kSmooth>
 __global__ void __launch_bounds__(kThreads, 1) gl_polish_fft_kernel(GlPolishArgs a) {
     extern __shared__ __align__(16) float smem[];
     const long long b = blockIdx.x;
@@ -662,13 +669,13 @@ __global__ void __launch_bounds__(kThreads, 1) gl_polish_fft_kernel(GlPolishArgs
     const int n = ov * hop;
     const int n_out = Tp * hop;
     float* y = smem;  // 16-byte aligned: hop % 4 == 0
-    const FftSmem fs = carve_fft(y + (size_t)n_out, n);
-    float* wsyn = fs.buf + (size_t)a.teams * fft_buf_floats(n);
+    const FftSmem fs = carve_fft<kSmooth>(y + (size_t)n_out, n);
+    float* wsyn = fs.buf + (size_t)a.teams * fft_buf_floats_of<kSmooth>(n);
     float* mag_s = wsyn + n;
     float* ph_s = mag_s + (size_t)Tp * F;
     const float* mag_g = a.mag + (size_t)b * Tp * F;
     float* ph_g = a.phase + (size_t)b * Tp * F;
-    fft_stage(a.win, a.fft_tw, fs, n);
+    fft_stage<kSmooth>(a.win, a.fft_tw, fs, n);
     for (int i = threadIdx.x; i < n; i += kThreads) wsyn[i] = __ldg(a.wsyn + i);
     if constexpr (kResident) {
         for (int i = threadIdx.x; i < Tp * F; i += kThreads) {
@@ -690,7 +697,7 @@ __global__ void __launch_bounds__(kThreads, 1) gl_polish_fft_kernel(GlPolishArgs
         for (int i = threadIdx.x; i < n_out; i += kThreads) y[i] = 0.0f;
         // frames_irfft starts with a barrier: y is zero and the last
         // analysis's phases are visible; it ends with one
-        frames_irfft(
+        frames_irfft<kSmooth>(
             Tp + m, ov, n, fs, wsyn, a.teams,
             [&](int r, int k, float& re, float& im) {
                 const int f = r - m;
@@ -711,7 +718,7 @@ __global__ void __launch_bounds__(kThreads, 1) gl_polish_fft_kernel(GlPolishArgs
                 if (r >= m && pos < n_out) y[pos] = __fadd_rn(y[pos], v);
             });
         // frames_rfft starts with a barrier and ends with one
-        frames_rfft(y + (size_t)ctx * hop, a.Tx - ctx, hop, n, fs, a.teams,
+        frames_rfft<kSmooth>(y + (size_t)ctx * hop, a.Tx - ctx, hop, n, fs, a.teams,
                     [&](int r, int k, float re, float im) {
                         const int f = ctx + r;
                         if (f < lo || f >= hi) ph_out[f * F + k] = atan2f(im, re);
@@ -992,19 +999,23 @@ int att_gl_project_analysis(const float* y, const float* wc, const float* ws, fl
 // O's polish (see gl_polish_fft_kernel).  mag, phase (B, Tp, F) float32, Tp =
 // Tx + overlap - 1; phase rows ctx .. Tx - 1 outside [keep_lo, keep_hi)
 // updated in place after `iters` projections, every other row untouched.
-// n_fft = overlap hop a power of two from 64 to 4096, F = n_fft / 2 + 1, hop a
-// multiple of 4; window (n_fft,) the analysis window, wsyn (n_fft,) the
-// synthesis window / overlap / n_fft, fft_tw (2, n_fft) = (cos, -sin)(2 pi j /
-// n_fft); 1 <= teams <= 4096 / n_fft; resident != 0 holds the grid in shared
-// memory.  Returns a cudaError_t.
+// n_fft = overlap hop a power of two from 64 to 4096 (1 <= teams <= 4096 /
+// n_fft), or on the smooth route where fft_covers_smooth(n_fft) (1 <= teams
+// <= fft_smooth_max_teams(n_fft)), F = n_fft / 2 + 1, hop a multiple of 4;
+// window (n_fft,) the analysis window, wsyn (n_fft,) the synthesis window /
+// overlap / n_fft (frames_fft.irfft_window), fft_tw (2, n_fft) = (cos,
+// -sin)(2 pi j / n_fft); resident != 0 holds the grid in shared memory.
+// Returns a cudaError_t.
 int att_gl_polish(const float* mag, float* phase, const float* window, const float* wsyn,
                   const float* fft_tw, long long B, int Tp, int Tx, int ctx, int keep_lo, int keep_hi,
                   int F, int hop, int overlap, int iters, int teams, int resident, void* stream) {
     using namespace att;
     const int n_fft = overlap * hop;
-    if (!session_args_ok(B, Tp, F, hop, overlap) || !fft_covers(n_fft) || F != n_fft / 2 + 1 ||
-        teams < 1 || teams > fft_max_teams(n_fft) || ctx < 0 || ctx >= Tx || Tx + overlap - 1 != Tp ||
-        iters < 1) {
+    const bool smooth = !fft_covers(n_fft);
+    const int max_teams = smooth ? fft_smooth_max_teams(n_fft) : fft_max_teams(n_fft);
+    if (!session_args_ok(B, Tp, F, hop, overlap) || (smooth && !fft_covers_smooth(n_fft)) ||
+        F != n_fft / 2 + 1 || teams < 1 || teams > max_teams || ctx < 0 || ctx >= Tx ||
+        Tx + overlap - 1 != Tp || iters < 1) {
         return (int)cudaErrorInvalidValue;
     }
     GlPolishArgs a = {};
@@ -1014,13 +1025,17 @@ int att_gl_polish(const float* mag, float* phase, const float* window, const flo
     const size_t smem = polish_smem_floats(Tp, hop, n_fft, teams, resident != 0) * sizeof(float);
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
-#define ATT_LAUNCH_POL(RES)                                                        \
+#define ATT_LAUNCH_POL(RES, SMOOTH)                                                \
     do {                                                                           \
-        err = session_allow_smem(gl_polish_fft_kernel<RES>, smem);                 \
+        err = session_allow_smem(gl_polish_fft_kernel<RES, SMOOTH>, smem);         \
         if (err != cudaSuccess) return (int)err;                                   \
-        gl_polish_fft_kernel<RES><<<(unsigned)B, kThreads, smem, s>>>(a);          \
+        gl_polish_fft_kernel<RES, SMOOTH><<<(unsigned)B, kThreads, smem, s>>>(a);  \
     } while (0)
-    if (resident) ATT_LAUNCH_POL(true); else ATT_LAUNCH_POL(false);
+    if (smooth) {
+        if (resident) ATT_LAUNCH_POL(true, true); else ATT_LAUNCH_POL(false, true);
+    } else {
+        if (resident) ATT_LAUNCH_POL(true, false); else ATT_LAUNCH_POL(false, false);
+    }
 #undef ATT_LAUNCH_POL
     return (int)cudaGetLastError();
 }

@@ -14,12 +14,14 @@ inverse; the full-K Griffin-Lim step (J) both; the streaming roundtrips (L,
 M) both in one team (``frames_roundtrip``), wherever :func:`fft_covers`
 takes ``n_fft``.  R, N's encode, L, M, the streaming decodes (P, S, O's
 projection synthesis), the full-K melspec forward and fit (E, F, and so
-A and B under the taps' own window) and the Griffin-Lim steps (J, C, D, I)
-also take the mixed-radix schedule wherever :func:`fft_covers_smooth` takes
-``n_fft`` (even, ``2^a 3^b 5^c``, 64 to 4096, not a power of two: 1200, 960,
-768, 400, 1920, ...; the Griffin-Lim steps where their block fits too);
-every other ``n_fft`` keeps the window-folded products of ``dft_common.cuh``
-and ``synth_ola.cuh`` (and A and B their factored front end).
+A and B under the taps' own window), the Griffin-Lim steps (J, C, D, I),
+K's synthesis and O's polish also take the mixed-radix schedule wherever
+:func:`fft_covers_smooth` takes ``n_fft`` (even, ``2^a 3^b 5^c``, 64 to 4096,
+not a power of two: 1200, 960, 768, 400, 1920, ...; the Griffin-Lim steps,
+K's synthesis and the polish where their block fits too); every other
+``n_fft`` keeps the window-folded products of ``dft_common.cuh`` and
+``synth_ola.cuh`` (and A and B their factored front end; O's polish the
+two-launch projection).
 
 The schedule, which :func:`frames_rfft_reference` and
 :func:`frames_irfft_reference` repeat step for step:
@@ -84,10 +86,11 @@ TWO_BLOCKS_SMEM = SM_SMEM // 2 - 1024   # a block's share when two run on one SM
 
 def fft_covers(n_fft: int) -> bool:
     """Whether the FFT route takes ``n_fft``: a power of two from 64 to 4096.
-    Elsewhere G, H, K's synthesis and O's polish run their product routes;
-    R, L, M, the decodes, E and F (with A and B), J, C, D and I take the
-    smooth route where :func:`fft_covers_smooth` does, and the products
-    (A and B the factored front end) at every other ``n_fft``."""
+    Elsewhere G and H run their product routes; R, L, M, the decodes, E and
+    F (with A and B), J, C, D, I, K's synthesis and O's polish take the
+    smooth route where :func:`fft_covers_smooth` does, and the products (A
+    and B the factored front end, O's polish the two-launch projection) at
+    every other ``n_fft``."""
     n = int(n_fft)
     return FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0
 
@@ -97,10 +100,10 @@ def fft_covers_smooth(n_fft: int) -> bool:
     (``a >= 1``), from 64 to 4096, and not a power of two (those keep
     :func:`fft_covers`'s schedule).  R, the magnitude encode, L, M, the
     streaming decodes (P, S, O's projection synthesis), the full-K melspec
-    forward and fit E and F (so A and B, under the taps' own window) and the
-    Griffin-Lim steps J, C, D and I (where their block fits) take it; every
-    other kernel (G, H, K's synthesis, O's polish and analysis) runs its
-    product route there."""
+    forward and fit E and F (so A and B, under the taps' own window), the
+    Griffin-Lim steps J, C, D and I, K's synthesis and O's polish (each
+    where its block fits) take it; every other kernel (G, H, O's analysis)
+    runs its product route there."""
     n = int(n_fft)
     if not FFT_MIN <= n <= FFT_MAX or n % 2 or n & (n - 1) == 0:
         return False

@@ -10,11 +10,14 @@ source bin and ``off = ct[src] + seg``), and the walk (``pghi_walk_kernel``,
 one block a chain: ``phi_t = phi_{t-1}[src] + off`` frame by frame, silent
 bins' phases from an input).  The synthesis (``mag * e^{i phase}``, windowed
 inverse DFT and overlap-add) runs one block per clip and tile of output
-chunks.  The synthesis has two routes, picked by ``n_fft`` alone
-(``frames_fft.fft_covers``): where ``n_fft`` is a power of two from 64 to
-4096 the FFT route (``csrc/fft_smem.cuh:frames_irfft``: an inverse FFT of
-every frame, the overlap-add by classes, no basis; plain version
-``frames_irfft_reference`` and ``overlap_add_classes``), elsewhere the
+chunks.  The synthesis has three routes, picked by ``(n_fft, hop)`` alone
+(:func:`synth_route`): where ``n_fft`` is a power of two from 64 to 4096 the
+FFT route (``csrc/fft_smem.cuh:frames_irfft``: an inverse FFT of every
+frame, the overlap-add by classes, no basis; plain version
+``frames_irfft_reference`` and ``overlap_add_classes``), where
+``frames_fft.fft_covers_smooth(n_fft)`` (even, ``2^a 3^b 5^c``, no power of
+two: 768, 1200, ...) and a block fits the smooth route (the same kernel's
+mixed-radix instance, ``smooth=True`` in the plain version), elsewhere the
 product route (a window-folded basis of ``(overlap, 2F, hop)``, the inverse
 DFT and the overlap-add in one product).  ``routes`` counts its launches by
 route.  ``pghi_invert_fused`` is the recurrence followed by the synthesis;
@@ -38,6 +41,7 @@ output differs from the causal scan's (another integration order).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -50,8 +54,10 @@ from ..pghi import EPS, random_angles
 from . import _build
 from .frames_fft import (
     class_plan,
+    class_plan_smooth,
+    fft_area_floats,
     fft_covers,
-    fft_smem_floats,
+    fft_covers_smooth,
     fft_twiddles,
     frames_irfft_reference,
     irfft_window,
@@ -67,7 +73,7 @@ __all__ = [
     "pghi_synthesize_fused", "pghi_synthesize_fused_reference",
     "pghi_plan", "pghi_plan_reference", "pghi_walk", "pghi_walk_reference", "fill_sources",
     "pghi_fused_available", "pghi_phases_available",
-    "ola_supported", "pghi_dispatch",
+    "ola_supported", "pghi_dispatch", "synth_route",
     "launches", "routes", "reset_launches",
 ]
 
@@ -86,8 +92,8 @@ _SYN_KC, _SYN_COLS = 32, 256      # staged contraction rows / sample columns (sy
 #: recurrence call), the synthesis
 launches: Dict[str, int] = {"pghi_plan": 0, "pghi_phases": 0, "pghi_synthesize": 0}
 #: the synthesis's launches by route, ``"pghi_synthesize:fft"`` /
-#: ``":product"`` (each also counts in ``launches``)
-routes: Dict[str, int] = {"pghi_synthesize:fft": 0, "pghi_synthesize:product": 0}
+#: ``":smooth"`` / ``":product"`` (each also counts in ``launches``)
+routes: Dict[str, int] = {"pghi_synthesize:fft": 0, "pghi_synthesize:smooth": 0, "pghi_synthesize:product": 0}
 
 
 def reset_launches() -> None:
@@ -151,19 +157,47 @@ def _synth_smem_bytes(rows: int, overlap: int, k_padded: int) -> int:
 
 
 def _synth_fft_smem_bytes(rows: int, hop: int, n_fft: int, teams: int) -> int:
-    """Shared memory of one synthesis block on the FFT route: the samples of
-    ``rows`` chunks and ``frames_irfft``'s area (the synthesis window in the
-    window's place)."""
-    return 4 * (rows * hop + fft_smem_floats(n_fft, teams))
+    """Shared memory of one synthesis block on the FFT or smooth route: the
+    samples of ``rows`` chunks and ``frames_irfft``'s area on the route
+    ``n_fft`` takes (``frames_fft.fft_area_floats``; the synthesis window in
+    the window's place)."""
+    return 4 * (rows * hop + fft_area_floats(n_fft, teams))
 
 
+@functools.lru_cache(maxsize=None)
 def _synth_fft_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
-    """``(rows, teams)`` of the FFT route's synthesis block: ``rows`` output
-    chunks, a multiple of ``2 overlap``, behind which it synthesizes ``rows +
-    2 overlap`` frames (``frames_fft.class_plan``; 56 chunks and 4 FFTs at
-    1024/256)."""
-    return class_plan(n_fft, hop, lambda rows, teams: _synth_fft_smem_bytes(rows, hop, n_fft, teams),
-                      widest=max(64, 2 * (n_fft // hop)))
+    """``(rows, teams)`` of the FFT or smooth route's synthesis block, or
+    None when none fits: ``rows`` output chunks, a multiple of ``2 overlap``,
+    behind which it synthesizes ``rows + 2 overlap`` frames.  The FFT route
+    (``fft_covers(n_fft)``): ``frames_fft.class_plan`` (56 chunks and 4 FFTs
+    at 1024/256); the smooth route (``fft_covers_smooth(n_fft)``):
+    ``frames_fft.class_plan_smooth`` with up to four blocks an SM, the
+    decode's rule (its smooth instance is the decode's with the pairs counted
+    from the block's first frame, 64 registers as the decode's: 18 chunks
+    and 4 FFTs at 768/256, 40 and 2 at 1200/300)."""
+    ov = n_fft // hop
+
+    def smem(rows, teams):
+        return _synth_fft_smem_bytes(rows, hop, n_fft, teams)
+
+    if fft_covers(n_fft):
+        return class_plan(n_fft, hop, smem, widest=max(64, 2 * ov))
+    if fft_covers_smooth(n_fft):
+        return class_plan_smooth(n_fft, hop, smem, widest=max(64, 2 * ov), blocks=4)
+    return None
+
+
+def synth_route(n_fft: int, hop: int) -> str:
+    """The route of K's synthesis at ``(n_fft, hop)``, read by the kernel
+    wrapper and the plain version alike: ``"fft"`` where ``fft_covers(n_fft)``
+    (a power of two from 64 to 4096), ``"smooth"`` where
+    ``fft_covers_smooth(n_fft)`` and a smooth block fits
+    (:func:`_synth_fft_plan`), else ``"product"``."""
+    if fft_covers(n_fft):
+        return "fft"
+    if n_fft % hop == 0 and n_fft // hop >= 2 and fft_covers_smooth(n_fft) and _synth_fft_plan(n_fft, hop):
+        return "smooth"
+    return "product"
 
 
 def _pick_rows(n_fft: int, hop: int) -> Optional[int]:
@@ -533,16 +567,20 @@ def _finish_audio(y, window, T, n_fft, hop, length, batch_shape):
 
 def pghi_synthesize_fused_reference(mag, phases, n_fft, hop_length, window, length=None):
     """Plain PyTorch version of :func:`pghi_synthesize_fused`, on the route
-    the kernel takes: where ``fft_covers(n_fft)`` the FFT route's schedule
-    (``frames_irfft_reference`` with pair stride ``overlap`` over the whole
-    clip, then ``overlap_add_classes``), elsewhere the window-folded inverse
-    DFT as two products and one overlap-add."""
+    the kernel takes (:func:`synth_route`): on the FFT and smooth routes their
+    schedule (``frames_irfft_reference`` with pair stride ``overlap`` over the
+    whole clip under ``irfft_window``, ``smooth=True`` on the smooth route,
+    then ``overlap_add_classes``), elsewhere the window-folded inverse DFT as
+    two products and one overlap-add."""
     m, batch_shape = _as_btf(mag, n_fft)
     ph = phases.reshape(m.shape).to(torch.float32)
     re, im = m * torch.cos(ph), m * torch.sin(ph)
-    if fft_covers(n_fft):
-        w = irfft_window(window.to(m.device), n_fft)
-        y = overlap_add_classes(frames_irfft_reference(re, im, w, stride=n_fft // hop_length), hop_length)
+    route = synth_route(n_fft, hop_length)
+    if route != "product":
+        smooth = route == "smooth"
+        w = irfft_window(window.to(m.device), n_fft, smooth)
+        y = overlap_add_classes(frames_irfft_reference(re, im, w, stride=n_fft // hop_length, smooth=smooth),
+                                hop_length)
     else:
         Aw, Bw = _windowed_idft(window.to(m.device), n_fft)
         y = overlap_add(torch.matmul(re, Aw) + torch.matmul(im, Bw), hop_length)
@@ -686,11 +724,11 @@ def _launch_synthesize(m, ph, n_fft, hop, window) -> torch.Tensor:
     overlap = n_fft // hop
     out = torch.empty((B, (T + overlap - 1) * hop), dtype=torch.float32, device=m.device)
     lib = _build.load_library()
-    fft = fft_covers(n_fft)
+    route = synth_route(n_fft, hop)
     with torch.cuda.device(m.device):
-        if fft:
+        if route != "product":
             rows, teams = _synth_fft_plan(n_fft, hop)
-            wsyn = irfft_window(window.to(m.device), n_fft).contiguous()
+            wsyn = irfft_window(window.to(m.device), n_fft, route == "smooth").contiguous()
             (tw,) = _tables(fft_twiddles, m.device, n_fft)
             code = lib.att_pghi_synthesize_fft(
                 m.data_ptr(), ph.data_ptr(), wsyn.data_ptr(), tw.data_ptr(), out.data_ptr(), B, T,
@@ -704,7 +742,7 @@ def _launch_synthesize(m, ph, n_fft, hop, window) -> torch.Tensor:
             )
     _build.check(code, "pghi_synthesize")
     launches["pghi_synthesize"] += 1
-    routes["pghi_synthesize:fft" if fft else "pghi_synthesize:product"] += 1
+    routes["pghi_synthesize:" + route] += 1
     return out
 
 
@@ -761,8 +799,9 @@ def pghi_synthesize_fused(
     length: Optional[int] = None,
 ) -> torch.Tensor:
     """``istft(mag * e^{i phases})`` by the synthesis kernel (windowed inverse
-    DFT and overlap-add: an FFT a frame where ``fft_covers(n_fft)``, else one
-    product; torch ISTFT conventions).  ``window`` is the synthesis window."""
+    DFT and overlap-add: an FFT a frame on the FFT and smooth routes, else one
+    product, :func:`synth_route`; torch ISTFT conventions).  ``window`` is the
+    synthesis window."""
     if not mag.is_cuda:
         return pghi_synthesize_fused_reference(mag, phases, n_fft, hop_length, window, length)
     m, batch_shape = _as_btf(mag, n_fft)

@@ -49,7 +49,8 @@ to three kernel launches instead of a Python loop of small ops per chunk
   (``csrc/pghi.cu``, one launch), the polish (:func:`gl_polish`), then the
   commit and the carries in small tensor operations; P's synthesis of every
   committed frame ends the session.  The polish is one launch a chunk where
-  :func:`_polish_plan` takes the grid (``gl_polish_fft_kernel``: a block per
+  :func:`_polish_plan` takes the grid (``gl_polish_fft_kernel``, its
+  mixed-radix instance where ``fft_covers_smooth(n_fft)``: a block per
   session runs all ``gl_iterations`` projections with the grid in shared
   memory, ``frames_irfft`` into an overlap-add signal in shared memory, then
   ``frames_rfft`` of the re-framed rows and ``atan2``; plain version
@@ -159,7 +160,6 @@ from .frames_fft import (
     fft_covers,
     fft_covers_smooth,
     fft_max_teams,
-    fft_smem_floats,
     fft_smooth_max_teams,
     fft_twiddles,
     frames_irfft_reference,
@@ -206,9 +206,10 @@ launches: Dict[str, int] = {
     "session_magnitude": 0, "rt_pghi_phases": 0, "session_complex_decode": 0,
     "rt_pghi_seeded": 0, "gl_project_synthesis": 0, "gl_project_analysis": 0, "gl_polish": 0,
 }
-#: the encode's, the roundtrips' and the decodes' launches by route,
-#: ``"<kernel>:fft"`` / ``"<kernel>:smooth"`` / ``"<kernel>:product"`` (each
-#: also counts in ``launches``; the polish has the FFT route only)
+#: the encode's, the roundtrips', the decodes' and the polish's launches by
+#: route, ``"<kernel>:fft"`` / ``"<kernel>:smooth"`` / ``"<kernel>:product"``
+#: (each also counts in ``launches``; the polish has no product route: the
+#: two-launch projection takes the grids it refuses)
 routes: Dict[str, int] = {
     "session_encode:fft": 0, "session_encode:smooth": 0, "session_encode:product": 0,
     "session_magnitude:fft": 0, "session_magnitude:smooth": 0, "session_magnitude:product": 0,
@@ -218,7 +219,7 @@ routes: Dict[str, int] = {
     "session_random_decode:fft": 0, "session_random_decode:smooth": 0, "session_random_decode:product": 0,
     "session_complex_decode:fft": 0, "session_complex_decode:smooth": 0, "session_complex_decode:product": 0,
     "gl_project_synthesis:fft": 0, "gl_project_synthesis:smooth": 0, "gl_project_synthesis:product": 0,
-    "gl_polish:fft": 0,
+    "gl_polish:fft": 0, "gl_polish:smooth": 0,
 }
 
 
@@ -369,8 +370,9 @@ def session_route(n_fft: int) -> str:
     """The route of R, the magnitude encode, L, M and the decodes (P, S,
     O's projection synthesis) at ``n_fft``: ``"fft"`` where ``fft_covers`` (a
     power of two from 64 to 4096), ``"smooth"`` where ``fft_covers_smooth``
-    (the mixed-radix instance), else ``"product"``.  The polish reads
-    ``fft_covers`` alone."""
+    (the mixed-radix instance), else ``"product"``.  The polish takes the
+    same rule where :func:`_polish_plan` holds the grid (it has no product
+    route)."""
     if fft_covers(n_fft):
         return "fft"
     return "smooth" if fft_covers_smooth(n_fft) else "product"
@@ -543,10 +545,11 @@ def _two_launch_covers(n_fft: int, hop: int, rows: int) -> bool:
 def _polish_smem_bytes(Tp: int, hop: int, n_fft: int, teams: int, resident: bool) -> int:
     """Shared memory of one block of the polish (``gl_polish_fft_kernel``),
     as ``csrc/stream_step.cu:polish_smem_floats`` lays it out: the grid's
-    overlap-add signal (``Tp hop``), ``frames_rfft``'s area, the synthesis
-    window, and where ``resident`` the grid's magnitudes and phases."""
+    overlap-add signal (``Tp hop``), ``frames_rfft``'s area on the route
+    ``n_fft`` takes (``frames_fft.fft_area_floats``), the synthesis window,
+    and where ``resident`` the grid's magnitudes and phases."""
     n_bins = n_fft // 2 + 1
-    return 4 * (Tp * hop + fft_smem_floats(n_fft, teams) + n_fft + (2 * Tp * n_bins if resident else 0))
+    return 4 * (Tp * hop + fft_area_floats(n_fft, teams) + n_fft + (2 * Tp * n_bins if resident else 0))
 
 
 @functools.lru_cache(maxsize=None)
@@ -554,17 +557,21 @@ def _polish_plan(n_fft: int, hop: int, Tp: int) -> Optional[Tuple[int, bool]]:
     """``(teams, resident)`` of the polish's launch for a grid of ``Tp``
     frames (``gl_context + T_c + lookahead + overlap - 1``), or None, and then
     the polish is ``gl_iterations`` two-launch projections.  It takes ``n_fft``
-    a power of two from 64 to 4096 (``fft_covers``), ``hop % 4 == 0``, ``2 <=
-    overlap <= 8`` and a block that fits shared memory: the grid's magnitudes
-    and phases in shared memory (``resident``) with the most FFTs side by side
-    that fit (``4096 / n_fft`` on 256 threads: 4 at 1024/256, a 160 KB block
-    at 22 frames), else read from and written to device memory.  The rule
-    reads the shape alone, never a failed launch."""
+    a power of two from 64 to 4096 (``fft_covers``) or even and ``2^a 3^b 5^c``
+    (``fft_covers_smooth``: the kernel's mixed-radix instance, the same route
+    as :func:`session_route`'s), ``hop % 4 == 0``, ``2 <= overlap <= 8`` and a
+    block that fits shared memory: the grid's magnitudes and phases in shared
+    memory (``resident``) with the most FFTs side by side that fit (``4096 /
+    n_fft`` on 256 threads on the FFT route: 4 at 1024/256, a 160 KB block at
+    22 frames; ``frames_fft.fft_smooth_max_teams`` on the smooth route: 2 at
+    1200/300, a 137 KB block at 14 frames), else read from and written to
+    device memory.  The rule reads the shape alone, never a failed launch."""
     ov = n_fft // hop if hop else 0
-    if not fft_covers(n_fft) or hop % 4 or n_fft % hop or not 2 <= ov <= MAX_OVERLAP or Tp < ov:
+    route = session_route(n_fft)
+    if route == "product" or hop % 4 or n_fft % hop or not 2 <= ov <= MAX_OVERLAP or Tp < ov:
         return None
     for resident in (True, False):
-        teams = fft_max_teams(n_fft)
+        teams = fft_max_teams(n_fft) if route == "fft" else fft_smooth_max_teams(n_fft)
         while teams >= 1:
             if _polish_smem_bytes(Tp, hop, n_fft, teams, resident) <= MAX_SMEM:
                 return teams, resident
@@ -597,8 +604,9 @@ def kernel_covers(kind: str, n_fft: int, hop: int, rows: Optional[int] = None,
 
 
 _PROJECT_NEED = ("hop % 4 == 0 and a grid (gl_context + T_c + lookahead + overlap - 1 frames) that the "
-                 "polish's block holds in shared memory at n_fft a power of two from 64 to 4096, or at "
-                 "most 40 polished frames (T_c + lookahead) whose samples fit shared memory")
+                 "polish's block holds in shared memory at n_fft a power of two from 64 to 4096 or an even "
+                 "2^a 3^b 5^c, or at most 40 polished frames (T_c + lookahead) whose samples fit shared "
+                 "memory")
 
 
 def _require(kind: str, n_fft: int, hop: int, rows: Optional[int] = None,
@@ -1079,7 +1087,9 @@ def gl_project_reference(mag, phase, inv_window, window, n_fft: int, hop: int, c
 
 def gl_polish_reference(mag, phase, inv_window, window, n_fft: int, hop: int, ctx: int,
                         keep_lo: int, keep_hi: int, iters: int) -> torch.Tensor:
-    """Plain version of O's polish on the FFT route (``gl_polish_fft_kernel``):
+    """Plain version of O's polish on the FFT and smooth routes
+    (``gl_polish_fft_kernel``; ``smooth=True`` in both plain FFTs where
+    :func:`session_route` says ``"smooth"``):
     ``iters`` projections of the grid (``mag`` and ``phase`` ``(B, Tp, F)``,
     the last ``overlap - 1`` frames zero magnitude; see
     :func:`gl_project_reference`) in the kernel's schedule.  Each: the
@@ -1096,11 +1106,12 @@ def gl_polish_reference(mag, phase, inv_window, window, n_fft: int, hop: int, ct
     rows = torch.arange(ctx, Tx, device=mag.device)
     upd = ((rows < keep_lo) | (rows >= keep_hi))[None, :, None]
     w = window.to(device=mag.device, dtype=torch.float32)
+    smooth = session_route(n_fft) == "smooth"
     ph = phase.clone()
     for _ in range(int(iters)):
         y = _synthesize_fft(mag * torch.cos(ph), mag * torch.sin(ph), inv_window, float(ov), n_fft, hop,
-                            mag.shape[1])
-        re, im = frames_rfft_reference(y.unfold(-1, n_fft, hop)[:, ctx:Tx], w)
+                            mag.shape[1], smooth)
+        re, im = frames_rfft_reference(y.unfold(-1, n_fft, hop)[:, ctx:Tx], w, smooth=smooth)
         ph[:, ctx:Tx] = torch.where(upd, torch.atan2(im, re), ph[:, ctx:Tx])
     return ph
 
@@ -1123,7 +1134,7 @@ def _launch_polish(mag, phase, window, proj_syn, n_fft, hop, ctx, keep_lo, keep_
         )
     _build.check(code, "gl_polish")
     launches["gl_polish"] += 1
-    routes["gl_polish:fft"] += 1
+    routes["gl_polish:" + session_route(n_fft)] += 1
 
 
 def _launch_project_analysis(y, phase, WC, WS, n_fft, hop, Tx, ctx, keep_lo, keep_hi) -> None:

@@ -65,14 +65,15 @@ have two routes, picked by n_fft alone: a shared-memory FFT
 (``csrc/fft_smem.cuh``: ``frames_rfft`` for the analyses, ``frames_irfft``
 for the syntheses of C, D, I, J, L, M, K, P, S and O) at a power of two
 from 64 to 4096, the window-folded products elsewhere (R, L, M, P, S,
-O's synthesis, E, F, J, C, D and I take a third route, the mixed-radix FFT,
-at even 5-smooth n_fft); so do the log-mel
+O's synthesis, E, F, J, C, D, I and K's synthesis take a third route, the
+mixed-radix FFT, at even 5-smooth n_fft); so do the log-mel
 forward and fit (A and B: E's and F's FFT and smooth instances under the
 taps' own window, the factored front end elsewhere), the representations' forward
 and fit statistics with taps (G and H: G and H full-K's instances under the
 taps' own window), and O's polish
 (``gl_polish_fft_kernel``: every projection of a chunk in one launch, where
-its block holds the grid; two launches a projection elsewhere).  Phases 3 and 4f
+its block holds the grid, on the FFT or the smooth route; two launches a
+projection elsewhere).  Phases 3 and 4f
 hold the FFT route against its plain version (within 1e-5 for R, E and F;
 1e-6 for C, D, I, J, L, M, K's synthesis, G, H, P, S and O's synthesis,
 which come out bit-identical; A within 2e-5 and B and H with taps with their
@@ -80,21 +81,27 @@ extrema bit-identical and sums within 1e-5, at every power of two from 64
 under hann, hamming and blackman) and against a float64 oracle at 1024, 512,
 2048 and 4096 (C, D, I, K, G, H, P, S and O's synthesis at every power of
 two from 64), the factored route at 768/192 (G, H) and 896/224 (A, B), and
-the product route at 768/256 (K, G, H), 896/224 (E, F, J, C, D, I), 768/192
-(K), 8192/2048 (J), 1200/300 (K) and 1344/336 (R, L, M, P, S, O's
-synthesis), and the smooth route of R, L, M, P, S and O's synthesis (the
-mixed-radix FFT) at 1200/300, 960/240, 768/192, 400/100 and 1920/480,
-bit-identical to its plain version, of E and F (A and B under hann and
-blackman taps) at 768/256, 768/192, 640/160, 384/96, 1536/384, 1920/480 and
-3072/768 (|X| and the extrema bit-identical, the mel product's and the sums'
-order aside), and of J, C, D and I at those seven framings (bit-identical,
-D to four C, every frame of C, I and J within 1e-5 of the float64 oracle);
+the product route at 768/256 (G, H), 896/224 (E, F, J, C, D, I, K),
+8192/2048 (J) and 1344/336 (R, L, M, P, S, O's synthesis), and the smooth
+route of R, L, M, P, S, O's synthesis and O's polish (the mixed-radix FFT)
+at 1200/300, 960/240, 768/192, 400/100 and 1920/480, bit-identical to its
+plain version, of E and F (A and B under hann and blackman taps) at
+768/256, 768/192, 640/160, 384/96, 1536/384, 1920/480 and 3072/768 (|X| and
+the extrema bit-identical, the mel product's and the sums' order aside), of
+J, C, D and I at those seven framings (bit-identical, D to four C, every
+frame of C, I and J within 1e-5 of the float64 oracle), and of K's
+synthesis at those seven and 1200/300 (bit-identical, within 1e-5 of a
+float64 istft);
 the launch counters' route tally shows
 every main-path launch of the nineteen on the FFT route, and phase 4h
 drives the smooth, product and factored routes through the entry points
-(1200/300 sessions: R, L, M, the magnitude encode and the decodes on the
-smooth route; 1344/336 sessions: R, L, M, the magnitude encode and the
-decodes on the product route; STFT(768, 192) and STFT(896, 224)
+(1200/300 sessions: R, L, M, the magnitude encode, the decodes and, in
+``pghi_gl``, O's polish on the smooth route, one launch a chunk; a 3072/768
+``pghi_gl`` grid of 3 + 40 + 3 frames, which no polish block holds, on the
+two-launch projection; 1344/336 sessions: R, L, M, the magnitude encode and
+the decodes on the product route; ``STFT(1200, 300)`` and ``DGT(768, 256)``
+``pghi`` inverts: K's synthesis on the smooth route, ``DGT(896, 224)`` on
+the product route; STFT(768, 192) and STFT(896, 224)
 Griffin-Lim inverts (C, D on the smooth, then the product route),
 STFT(768, 192) log-mel (A, B on the smooth route) and Polar chains' fit and
 forward, a DGT(768, 256) chain's fit and forward (E, F on the smooth
@@ -158,6 +165,9 @@ K_STEP_CYCLES = 54
 # even 5-smooth framings of the log-mel / magnitude kernels' smooth route (A,
 # B, E, F): 2^8 3 at overlap 3 and 4, 2^7 5, 2^7 3, 2^9 3, 2^7 3 5, 2^10 3
 SMOOTH_SHAPES = ((768, 256), (768, 192), (640, 160), (384, 96), (1536, 384), (1920, 480), (3072, 768))
+# the session framings of the smooth route (R, L, M, the decodes, O's polish):
+# 2^4 3 5^2, 2^6 3 5, 2^8 3, 2^4 5^2, 2^7 3 5 at overlap 4
+SESSION_SMOOTH_SHAPES = ((1200, 300), (960, 240), (768, 192), (400, 100), (1920, 480))
 
 
 def log(msg: str) -> None:
@@ -282,6 +292,154 @@ def gl_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
     return out
 
 
+def k_synth_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
+    """K's synthesis on the smooth route at each of PLAN_SWEEP_SHAPES (the
+    DGT's gaussian window, random phases) under every plan the kernel takes
+    (rows a multiple of 2 overlap up to max(64, 2 overlap) x 1, 2, 4, ...
+    FFTs side by side, within the route's teams and shared memory), the
+    card's time a call back to back; the output must be bit-identical under
+    every plan (the frame pairs are the clip's).  Returns per shape the rows,
+    the rule's pick (pghi_kernel._synth_fft_plan) and the fastest plan."""
+    from acids_transforms_tpu_torch import transforms as T
+    from acids_transforms_tpu_torch.ops.cuda import frames_fft as ff, pghi_kernel as pk
+    from acids_transforms_tpu_torch.ops.fft import stft
+    from acids_transforms_tpu_torch.ops.windows import gaussian_dgt_window
+
+    rule, out = pk._synth_fft_plan, {}
+    try:
+        for n_fft, hop in PLAN_SWEEP_SHAPES:
+            ov = n_fft // hop
+            mag = stft(mono, n_fft, hop, gaussian_dgt_window(n_fft, device=mono.device)).abs()
+            ph = 2 * math.pi * torch.rand(mag.shape, device=mono.device,
+                                          generator=torch.Generator(device=mono.device).manual_seed(n_fft + hop))
+            w = T.DGT(n_fft=n_fft, hop_length=hop, device=mono.device).inv_window
+            pick = rule(n_fft, hop)
+            ref = pk.pghi_synthesize_fused(mag, ph, n_fft, hop, w)
+            rows = []
+            for r in range(2 * ov, max(64, 2 * ov) + 1, 2 * ov):
+                teams = 1
+                while teams <= ff.fft_smooth_max_teams(n_fft):
+                    if pk._synth_fft_smem_bytes(r, hop, n_fft, teams) <= ff.MAX_SMEM:
+                        pk._synth_fft_plan = lambda *a, p=(r, teams): p
+                        y = pk.pghi_synthesize_fused(mag, ph, n_fft, hop, w)
+                        require(torch.equal(y, ref), f"K {n_fft}/{hop}: plan {(r, teams)} changes the output")
+                        rows.append(dict(rows=r, teams=teams, ms=device_ms(
+                            lambda: pk.pghi_synthesize_fused(mag, ph, n_fft, hop, w), repeats)))
+                        pk._synth_fft_plan = rule
+                    teams *= 2
+            best = min(rows, key=lambda x: x["ms"])
+            mine = next(x for x in rows if (x["rows"], x["teams"]) == tuple(pick))
+            out[f"{n_fft}/{hop}"] = dict(rows=rows, pick=tuple(pick), best=(best["rows"], best["teams"]),
+                                         over=mine["ms"] / best["ms"] - 1.0)
+            del mag, ph, ref
+    finally:
+        pk._synth_fft_plan = rule
+    return out
+
+
+def polish_plan_sweep(sessions: int, repeats: int, dev) -> dict:
+    """O's polish on the smooth route at each of SESSION_SMOOTH_SHAPES: a
+    grid of gl_context 3 + 8 + overlap - 1 frames of `sessions` sessions
+    (random magnitudes, phases to 50 rad, the zero frames last), 16
+    projections in one launch, under every (teams, resident) the kernel
+    takes (teams 1, 2, 4, ... within the route's teams; the grid in shared
+    memory where it fits, and in device memory), the card's time a call back
+    to back; the output must be bit-identical under every plan.  Returns per
+    shape the rows, the rule's pick (stream_step._polish_plan) and the
+    fastest plan."""
+    from acids_transforms_tpu_torch import transforms as T
+    from acids_transforms_tpu_torch.ops.cuda import frames_fft as ff, stream_step as ss
+
+    rule, out = ss._polish_plan, {}
+    try:
+        for n_fft, hop in SESSION_SMOOTH_SHAPES:
+            ov, Fb = n_fft // hop, n_fft // 2 + 1
+            rt = T.RealtimeSTFT(n_fft=n_fft, hop_length=hop, inversion_mode="pghi_gl", device=dev)
+            ctx, iters = rt.gl_context, rt.gl_iterations
+            tp = ctx + 8 + ov - 1
+            lo, hi = rt.gl_frozen(8)
+            g = torch.Generator(device=dev).manual_seed(n_fft + hop + 7)
+            gm = torch.rand((sessions, tp, Fb), generator=g, device=dev)
+            gm[:, -(ov - 1):] = 0.0
+            gp = (2 * torch.rand((sessions, tp, Fb), generator=g, device=dev) - 1) * 50.0
+            syn = ss._decode_operands(rt.inv_window, float(ov), n_fft, hop)
+
+            def run(p):
+                return ss.gl_polish(gm, p, syn, rt.inv_window, rt.window, None, None, n_fft, hop, ctx, lo, hi,
+                                    iters)
+            pick = rule(n_fft, hop, tp)
+            ref = run(gp.clone())
+            rows = []
+            teams = 1
+            while teams <= ff.fft_smooth_max_teams(n_fft):
+                for res in (True, False):
+                    if ss._polish_smem_bytes(tp, hop, n_fft, teams, res) <= ff.MAX_SMEM:
+                        ss._polish_plan = lambda *a, p=(teams, res): p
+                        require(torch.equal(run(gp.clone()), ref),
+                                f"polish {n_fft}/{hop}: plan {(teams, res)} changes the output")
+                        scratch = gp.clone()
+                        rows.append(dict(teams=teams, resident=res, ms=device_ms(lambda: run(scratch), repeats)))
+                        ss._polish_plan = rule
+                teams *= 2
+            best = min(rows, key=lambda x: x["ms"])
+            mine = next(x for x in rows if (x["teams"], x["resident"]) == tuple(pick))
+            out[f"{n_fft}/{hop}"] = dict(rows=rows, pick=tuple(pick), best=(best["teams"], best["resident"]),
+                                         over=mine["ms"] / best["ms"] - 1.0, tp=tp)
+    finally:
+        ss._polish_plan = rule
+    return out
+
+
+def k_polish_route_turns(mono: torch.Tensor, sessions: int, repeats: int, dev) -> dict:
+    """K's synthesis at 768/256 and 1200/300 (the DGT's windows, random
+    phases) on the product instance, the route those shapes took before the
+    smooth one (pghi_kernel.synth_route forced to "product"), and on the
+    smooth instance; O's polish at 1200/300 (`sessions` sessions, 3 + 8 + 3
+    frames, 16 projections) as 16 two-launch projections
+    (stream_step._polish_plan forced to None) and as one smooth launch; in
+    turns old, new, new, old, each the card's time a call back to back.
+    Returns per kernel and shape the two routes' times."""
+    from acids_transforms_tpu_torch import transforms as T
+    from acids_transforms_tpu_torch.ops.cuda import pghi_kernel as pk, stream_step as ss
+    from acids_transforms_tpu_torch.ops.fft import stft
+    from acids_transforms_tpu_torch.ops.windows import gaussian_dgt_window
+
+    rule_k, rule_p, out = pk.synth_route, ss._polish_plan, {}
+    g = torch.Generator(device=dev).manual_seed(24)
+    try:
+        for n, hop in ((768, 256), (1200, 300)):
+            mag = stft(mono, n, hop, gaussian_dgt_window(n, device=dev)).abs()
+            ph = 2 * math.pi * torch.rand(mag.shape, generator=g, device=dev)
+            w = T.DGT(n_fft=n, hop_length=hop, device=dev).inv_window
+            t = {"product": [], "smooth": []}
+            for turn in ("product", "smooth", "smooth", "product"):
+                pk.synth_route = (lambda *a: "product") if turn == "product" else rule_k
+                t[turn].append(device_ms(lambda: pk.pghi_synthesize_fused(mag, ph, n, hop, w), repeats))
+                pk.synth_route = rule_k
+            out[f"K {n}/{hop}"] = t
+            del mag, ph
+        n, hop = 1200, 300
+        rt = T.RealtimeSTFT(n_fft=n, hop_length=hop, inversion_mode="pghi_gl", device=dev)
+        ov, Fb = n // hop, n // 2 + 1
+        tp = rt.gl_context + 8 + ov - 1
+        gm = torch.rand((sessions, tp, Fb), generator=g, device=dev)
+        gm[:, -(ov - 1):] = 0.0
+        gp = 2 * math.pi * torch.rand((sessions, tp, Fb), generator=g, device=dev)
+        lo, hi = rt.gl_frozen(8)
+        syn = ss._decode_operands(rt.inv_window, float(ov), n, hop)
+        wc, ws = ss._ana_basis(rt.window, n, ss._k_analysis(n))
+        t = {"two-launch": [], "polish": []}
+        for turn in ("two-launch", "polish", "polish", "two-launch"):
+            ss._polish_plan = (lambda *a: None) if turn == "two-launch" else rule_p
+            t[turn].append(device_ms(lambda: ss.gl_polish(gm, gp.clone(), syn, rt.inv_window, rt.window, wc, ws, n,
+                                                          hop, rt.gl_context, lo, hi, rt.gl_iterations), repeats))
+            ss._polish_plan = rule_p
+        out[f"O {n}/{hop}"] = t
+    finally:
+        pk.synth_route, ss._polish_plan = rule_k, rule_p
+    return out
+
+
 def gl_route_turns(mono: torch.Tensor, repeats: int) -> dict:
     """C, D (chain 4) and I at 768/192 (hann) and J at 768/256 (the DGT's
     gaussian) on the product instance, the route these shapes took before
@@ -346,6 +504,22 @@ def gl_smooth_resources(res: dict) -> dict:
     (J)."""
     return {k: v for k, v in res.items()
             if ("gl_step_fft_kernel" in k or "gl_fullk_fft_kernel" in k) and "ILb1E" in k}
+
+
+def k_polish_smooth_resources(res: dict) -> dict:
+    """The build log's resources of K's synthesis's and O's polish's smooth
+    instances: ``pghi_synthesize_fft_kernel<true>`` (``ILb1EE``) and
+    ``gl_polish_fft_kernel<kResident, true>`` (``ILb0ELb1EE``, ``ILb1ELb1EE``),
+    by the labels ``K``, ``O resident``, ``O device``."""
+    out = {}
+    for k, v in res.items():
+        if "pghi_synthesize_fft_kernelILb1EE" in k:
+            out["K"] = v
+        elif "gl_polish_fft_kernelILb1ELb1EE" in k:
+            out["O resident"] = v
+        elif "gl_polish_fft_kernelILb0ELb1EE" in k:
+            out["O device"] = v
+    return out
 
 
 def require(cond: bool, what: str) -> None:
@@ -745,7 +919,6 @@ def check_pghi(name, mag, n_fft, hop, window, gamma, seed, results, n64=4):
     that point, and the difference then rides along the chain); and it may be
     no further from the float64 run than 1.5 times the plain version plus
     1e-4."""
-    from acids_transforms_tpu_torch.ops.cuda import frames_fft as ff
     from acids_transforms_tpu_torch.ops.cuda import pghi_kernel as pk
 
     dev = mag.device
@@ -794,16 +967,16 @@ def check_pghi(name, mag, n_fft, hop, window, gamma, seed, results, n64=4):
         results[key] = max(results.get(key, 0.0), e_kp)
         results.setdefault("K_f64", {})[f"{name} {label}"] = (
             e_p64, e_k64, (ph_p[sub].double() - ph_64).abs().max().item(), ph_64.abs().max().item())
-        # synthesis of the kernel's own phases: kernel vs plain.  The FFT
-        # route repeats its plain version's float32 operations in order (and
-        # sincosf equals torch's sin and cos on the card): 1e-6, measured
-        # bit-identical; the product route sums in another order than cuBLAS:
-        # 1e-4
-        fft = ff.fft_covers(n_fft)
+        # synthesis of the kernel's own phases: kernel vs plain.  The FFT and
+        # smooth routes repeat their plain version's float32 operations in
+        # order (and sincosf equals torch's sin and cos on the card): 1e-6,
+        # measured bit-identical; the product route sums in another order
+        # than cuBLAS: 1e-4
+        route = pk.synth_route(n_fft, hop)
+        fft = route != "product"
         tol_s = 1e-6 if fft else 1e-4
         pk.reset_launches()
         a_k = pk.pghi_synthesize_fused(mag, ph_k, n_fft, hop, window)
-        route = "fft" if fft else "product"
         require(pk.routes[f"pghi_synthesize:{route}"] == 1 and sum(pk.routes.values()) == 1,
                 f"K {name}: the synthesis did not take the {route} route")
         a_p = pk.pghi_synthesize_fused_reference(mag, ph_k, n_fft, hop, window)
@@ -813,7 +986,7 @@ def check_pghi(name, mag, n_fft, hop, window, gamma, seed, results, n64=4):
             f"bit-identical {torch.equal(a_k, a_p)}), shape {tuple(a_k.shape)}")
         require(torch.isfinite(a_k).all().item() and a_k.shape == a_p.shape, f"K {name}: bad audio")
         require(e_s <= tol_s, f"K {name} synthesis disagrees with plain")
-        key = "K_synth" if fft else "K_synth_product"
+        key = {"fft": "K_synth", "smooth": "K_synth_smooth", "product": "K_synth_product"}[route]
         results[key] = max(results.get(key, 0.0), abs_err(a_k, a_p))
         # the whole inversion, kernels against plain versions
         inv_k = (pk.pghi_invert_fused if label == "phases" else pk.pghi_invert_bidir)(
@@ -1741,15 +1914,20 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
       roundtrip within 1e-4 of the CPU's).
     * Shapes whose layout the JAX package refuses but the port's kernels take
       stay on the kernels: ``STFT(1200, 300)`` in ``pghi`` launches K (the
-      recurrence and the synthesis; K against its plain versions there as in
-      phase 3), and the ``OverlapAdd(1200, 300) + RealtimeSTFT(1200, 300)``
+      recurrence and the synthesis, on the smooth route; K against its plain
+      versions there as in phase 3), and the ``OverlapAdd(1200, 300) +
+      RealtimeSTFT(1200, 300)``
       sessions launch L (complex roundtrip, within 1e-4 of the CPU's generic
       scan, SNR at least 100 dB after the delay), N (``pghi``) and O
       (``pghi_gl``), each against the card's generic scan under a generator
       in the same state by spectral convergence within ``1.1 s + 1e-3``.
-      Their encode (``scan_forward``), magnitude encodes, L, M and the
-      decodes (S, P, O's synthesis) take the smooth route (1200 = 2^4 3 5^2):
-      those launches are the smooth rows' counts.  The same sessions at
+      Their encode (``scan_forward``), magnitude encodes, L, M, the
+      decodes (S, P) and O's polish (one launch a chunk) take the smooth
+      route (1200 = 2^4 3 5^2): those launches are the smooth rows' counts.
+      A 3072/768 ``pghi_gl`` session with chunks of 40 frames (a 46-frame
+      grid no polish block holds) runs the two-launch projection, its
+      synthesis on the smooth route: the counts of O's smooth synthesis and
+      of its analysis.  The same sessions at
       1344/336 (2^6 3 7), the complex decode and ``pghi_gl`` among them, run
       R, L, M, the magnitude encode and the decodes on the product route:
       those rows' counts.
@@ -1763,7 +1941,8 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
       route, of an ``STFT(896, 224)`` their product route; the 768/256
       chain's ``pghi_gl`` invert takes J's smooth route, the 896/224 chain's
       J's product route, and the 768/256 ``pghi`` invert K's synthesis's
-      product route, each converging like the eager route; G and H full-K
+      smooth route, the 896/224 one its product route, each converging like
+      the eager route; G and H full-K
       through ``DGT(768, 256) + PolarIF``'s fit and
       forward (product), G and H with taps through STFT(768, 192) +
       Polar's (factored), the magnitude's fit and channel 1 against the
@@ -1840,9 +2019,9 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     y_f = pk.pghi_invert_fused(mag, st.gamma, n_fft, hop, st.inv_window, tolerance=st.tolerance, angles=ang)
     log(f"  STFT(1200, 300) pghi: launches {got}; the same as pghi_invert_fused: {torch.equal(y_k, y_f)}")
     require(got == {"pghi_plan": 1, "pghi_phases": 1, "pghi_synthesize": 1} and n_l == 3 and torch.equal(y_k, y_f)
-            and pk.routes["pghi_synthesize:product"] == 2, "STFT(1200, 300) pghi must run K, its synthesis "
-            "on the product route")
-    counts["pghi_synthesize:product"] += 1
+            and pk.routes["pghi_synthesize:smooth"] == 2, "STFT(1200, 300) pghi must run K, its synthesis "
+            "on the smooth route")
+    counts["pghi_synthesize:smooth"] += 1
     check_pghi("1200/300", mag, n_fft, hop, st.inv_window, st.gamma, 152, errs)
     xs = mono[:4, :8 * chunk].contiguous()
     chain = T.OverlapAdd(n_fft, hop) + T.RealtimeSTFT(n_fft=n_fft, hop_length=hop)
@@ -1901,11 +2080,12 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
         k = min(m.shape[-1], ref.shape[-1]) - 2
         return (torch.linalg.norm(m[..., 2:k] - ref[..., 2:k]) / torch.linalg.norm(ref[..., 2:k])).item()
 
-    iters = chain[1].gl_iterations
+    # pghi_gl: one smooth polish launch a chunk (all gl_iterations
+    # projections), no two-launch projection
     for mode, expect in (
         ("pghi", {"session_magnitude": 1, "rt_pghi_phases": 1, "session_random_decode": 1}),
-        ("pghi_gl", {"session_magnitude": 1, "rt_pghi_seeded": n_ch, "gl_project_synthesis": n_ch * iters,
-                     "gl_project_analysis": n_ch * iters, "session_random_decode": 1}),
+        ("pghi_gl", {"session_magnitude": 1, "rt_pghi_seeded": n_ch, "gl_polish": n_ch,
+                     "session_random_decode": 1}),
     ):
         require(streaming.plan_roundtrip(chain, tuple(xs.shape), chunk, mode, device=dev) == mode,
                 f"1200/300 {mode}: must plan the session")
@@ -1919,8 +2099,47 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
             f"(must be <= {1.1 * s_g + 1e-3:.5f})")
         require(y_k.shape == y_g.shape and torch.isfinite(y_k).all().item() and s_k <= 1.1 * s_g + 1e-3,
                 f"1200/300 {mode}: the session converges worse than the generic scan")
-        if mode == "pghi_gl":       # the two-launch polish: O's analysis row counts these
-            counts["gl_project_analysis"] += n_ch * iters
+        if mode == "pghi_gl":
+            t_w = time_ms(lambda: streaming.scan_roundtrip(chain, xs, chunk, mode, generator=sgen(153)), 3, 1)
+            log(f"    1200/300 pghi_gl roundtrip on the smooth polish ({n_ch} polish launches), warm (median of 3): "
+                f"{t_w:.2f} ms; the first call is the line above (the two-launch route's first call: 18.9 ms, "
+                "PERF.md section 6)")
+    # a smooth grid that the polish's block cannot hold keeps the two-launch
+    # projection, its synthesis on the decode's smooth instance: 3072/768
+    # (2^10 3) with chunks of 40 frames and gl_context 3 (46 grid frames, 233
+    # KB even with the grid in device memory); these launches are the
+    # Osyn_smooth row's count
+    n_t, hop_t, tc_t = 3072, 768, 40
+    chunk_t = tc_t * hop_t
+    xs_t = mono[:2, : 4 * chunk_t].contiguous()
+    chain_t = T.OverlapAdd(n_t, hop_t) + T.RealtimeSTFT(n_fft=n_t, hop_length=hop_t, inversion_mode="pghi_gl")
+    n_cht, iters_t = xs_t.shape[-1] // chunk_t, chain_t[1].gl_iterations
+    tp_t = chain_t[1].gl_context + tc_t + n_t // hop_t - 1
+    require(stream["ss"].session_route(n_t) == "smooth" and stream["ss"]._polish_plan(n_t, hop_t, tp_t) is None
+            and stream["ss"].kernel_covers("project", n_t, hop_t, tc_t, chain_t[1].gl_context),
+            f"{n_t}/{hop_t}: the polish must refuse the {tp_t}-frame grid and the two-launch route take it")
+    w_t = torch.hann_window(n_t, device=dev)
+
+    def sc_t(y):
+        d, n = n_t - hop_t, xs_t.shape[-1]
+
+        def spec(v):
+            return torch.stft(v, n_t, hop_t, window=w_t, center=True, pad_mode="reflect", return_complex=True).abs()
+        ref, m = spec(xs_t[..., : n - d]), spec(y[..., d:n])
+        k = min(m.shape[-1], ref.shape[-1]) - 2
+        return (torch.linalg.norm(m[..., 2:k] - ref[..., 2:k]) / torch.linalg.norm(ref[..., 2:k])).item()
+    y_t = route(f"{n_t}/{hop_t} pghi_gl roundtrip, {tc_t}-frame chunks (the two-launch projection, smooth route)",
+                lambda: streaming.scan_roundtrip(chain_t, xs_t, chunk_t, "pghi_gl", generator=sgen(158)),
+                {"session_magnitude": 1, "rt_pghi_seeded": n_cht, "gl_project_synthesis": n_cht * iters_t,
+                 "gl_project_analysis": n_cht * iters_t, "session_random_decode": 1}, main=False, front="smooth")
+    y_tg = generic(f"{n_t}/{hop_t} pghi_gl generic", lambda: streaming.scan_roundtrip(
+        chain_t, xs_t, chunk_t, "pghi_gl", generator=sgen(158), backend="generic"))
+    s_k, s_g = sc_t(y_t), sc_t(y_tg)
+    log(f"    vs the generic scan: spectral convergence {s_k:.5f} / {s_g:.5f} (must be <= {1.1 * s_g + 1e-3:.5f})")
+    require(y_t.shape == y_tg.shape and torch.isfinite(y_t).all().item() and s_k <= 1.1 * s_g + 1e-3,
+            f"{n_t}/{hop_t} pghi_gl: the two-launch session converges worse than the generic scan")
+    counts["gl_project_analysis"] += n_cht * iters_t          # O's analysis row counts these
+    del y_t, y_tg
 
     # R, L, M, the magnitude encode and the decodes on the product route: the
     # same sessions at 1344/336 (2^6 3 7: neither the FFT nor the smooth route)
@@ -2140,27 +2359,35 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
         return dgt, target, conv
 
     dgt, target, conv = pghi_gl(d_fit, y_k, 768, 256, "smooth")
-    pghi_gl(d_fit_y, y_y, 896, 224, "product")
-    # K's synthesis on the product route: that chain's pghi inversion,
-    # converging like the eager pghi_scan + istft from the same seed
+    dgt_y, target_y, conv_y = pghi_gl(d_fit_y, y_y, 896, 224, "product")
+    # K's synthesis on the smooth route (768/256) and on the product route
+    # (896/224): each chain's pghi inversion, converging like the eager
+    # pghi_scan + istft from the same seed
     from acids_transforms_tpu_torch.ops import pghi as pghi_ops
     from acids_transforms_tpu_torch.ops.fft import istft
 
-    zero()
-    rec = d_fit.invert(y_k, inversion_mode="pghi")
-    torch.cuda.synchronize()
-    got = {k: v for k, v in pk.routes.items() if v}
-    log(f"  DGT(768, 256) pghi invert: launches { {k: v for k, v in pk.launches.items() if v} }, routes {got}")
-    require(got == {"pghi_synthesize:product": 1} and pk.launches["pghi_phases"] == 1 and pk.launches["pghi_plan"] == 1
-            and torch.isfinite(rec).all().item(), "DGT(768, 256) pghi: K's synthesis must take the product route")
-    counts["pghi_synthesize:product"] += 1
-    g_e = torch.Generator(device=dev).manual_seed(dgt.seed)
-    ph_e = pghi_ops.pghi_scan(target, dgt.gamma, 768, 256, tolerance=dgt.tolerance, time_stencil="central",
-                              generator=g_e)
-    s_k, s_e = conv(rec), conv(istft(torch.polar(target, ph_e), 768, 256, dgt.inv_window))
-    log(f"    spectral convergence through K {s_k:.5f}, eager pghi_scan + istft {s_e:.5f} "
-        f"(must be < {max(1.15 * s_e, s_e + 0.02):.5f})")
-    require(s_k < max(1.15 * s_e, s_e + 0.02), "DGT(768, 256) pghi: K converges worse than the eager scan")
+    def pghi_invert(fit, y, dgt_c, target_c, conv_c, n_fft, hop, route):
+        zero()
+        rec = fit.invert(y, inversion_mode="pghi")
+        torch.cuda.synchronize()
+        got = {k: v for k, v in pk.routes.items() if v}
+        log(f"  DGT({n_fft}, {hop}) pghi invert: launches { {k: v for k, v in pk.launches.items() if v} }, "
+            f"routes {got}")
+        require(got == {f"pghi_synthesize:{route}": 1} and pk.launches["pghi_phases"] == 1
+                and pk.launches["pghi_plan"] == 1 and torch.isfinite(rec).all().item(),
+                f"DGT({n_fft}, {hop}) pghi: K's synthesis must take the {route} route")
+        counts[f"pghi_synthesize:{route}"] += 1
+        g_e = torch.Generator(device=dev).manual_seed(dgt_c.seed)
+        ph_e = pghi_ops.pghi_scan(target_c, dgt_c.gamma, n_fft, hop, tolerance=dgt_c.tolerance,
+                                  time_stencil="central", generator=g_e)
+        s_k, s_e = conv_c(rec), conv_c(istft(torch.polar(target_c, ph_e), n_fft, hop, dgt_c.inv_window))
+        log(f"    spectral convergence through K {s_k:.5f}, eager pghi_scan + istft {s_e:.5f} "
+            f"(must be < {max(1.15 * s_e, s_e + 0.02):.5f})")
+        require(s_k < max(1.15 * s_e, s_e + 0.02), f"DGT({n_fft}, {hop}) pghi: K converges worse than the eager "
+                                                   "scan")
+
+    pghi_invert(d_fit, y_k, dgt, target, conv, 768, 256, "smooth")
+    pghi_invert(d_fit_y, y_y, dgt_y, target_y, conv_y, 896, 224, "product")
     # G and H full-K on the product route: DGT(768, 256) + PolarIF, fit and
     # forward through the entry points, against the eager chain
     r_chain = T.Mono() + T.DGT(n_fft=768, hop_length=256) + T.PolarIF(
@@ -3509,6 +3736,44 @@ def main() -> int:
                     and glstep._fullk_fft_smem_bytes(rows_j, hop_s, n_fft_s, teams_j) <= ff.MAX_SMEM,
                     f"{n_fft_s}/{hop_s}: a Griffin-Lim smooth plan exceeds shared memory")
             n_gl += 1
+    # K's synthesis and O's polish on the smooth route: the three instances'
+    # registers and spill (reported: K's plan counts four blocks an SM, which
+    # 64 registers allow; the polish runs one block an SM), K's route at every
+    # even 5-smooth shape its gate takes (hop a multiple of 4), both layouts
+    # against the wrapper's at the plans and at one team
+    kp_res = k_polish_smooth_resources(_build.kernel_resources())
+    for name, res in kp_res.items():
+        log(f"    {name} smooth instance: {res.get('registers')} registers, spill stores / loads "
+            f"{res.get('spill_stores', 0)} / {res.get('spill_loads', 0)} B"
+            + (f" (K's plan assumes four blocks an SM: {'held' if res.get('registers', 999) <= 64 else 'NOT held'})"
+               if name == "K" else ""))
+    require(set(kp_res) == {"K", "O resident", "O device"}, f"K's and O's smooth instances: found {sorted(kp_res)}")
+    n_kp = 0
+    for n_fft_s in [n for n in range(64, 4097, 2) if ff.fft_covers_smooth(n)]:
+        for ov_s in range(2, 9):
+            if n_fft_s % ov_s or (n_fft_s // ov_s) % 4 or not pghi_kernel.pghi_fused_available(n_fft_s,
+                                                                                                 n_fft_s // ov_s):
+                continue
+            hop_s = n_fft_s // ov_s
+            require(pghi_kernel.synth_route(n_fft_s, hop_s) == "smooth", f"{n_fft_s}/{hop_s}: K must be smooth")
+            rows, teams = pghi_kernel._synth_fft_plan(n_fft_s, hop_s)
+            for tm in sorted({1, teams}):
+                require(lib.att_pghi_synth_fft_smem_bytes(rows, hop_s, n_fft_s, tm)
+                        == pghi_kernel._synth_fft_smem_bytes(rows, hop_s, n_fft_s, tm),
+                        f"{n_fft_s}/{hop_s}: K's smooth shared-memory size: wrapper and source disagree")
+            for tp in (ov_s, 14, 22, 46):
+                plan = ss._polish_plan(n_fft_s, hop_s, tp)
+                for tm in sorted({1, plan[0] if plan else 1}):
+                    for res in (0, 1):
+                        require(lib.att_gl_polish_smem_bytes(tp, hop_s, n_fft_s, tm, res)
+                                == ss._polish_smem_bytes(tp, hop_s, n_fft_s, tm, bool(res)),
+                                f"{n_fft_s}/{hop_s}: the polish's smooth shared-memory size: wrapper and "
+                                "source disagree")
+            n_kp += 1
+    log(f"    K's synthesis and O's polish on the smooth route: K smooth at every one of {n_kp} shapes, shared-memory "
+        f"sizes agree (K at 768/256 {pghi_kernel._synth_fft_plan(768, 256)}, 1200/300 "
+        f"{pghi_kernel._synth_fft_plan(1200, 300)} as (chunks, FFTs); the polish at 1200/300 and 14 grid frames "
+        f"{ss._polish_plan(1200, 300, 14)} as (FFTs, grid in shared memory))")
     log(f"    the Griffin-Lim smooth route: every one of {n_gl} shapes takes it, plans and shared-memory sizes agree "
         f"(C / D / I at 768/192 {glstep._step_fft_plan(768, 192)}, 640/160 {glstep._step_fft_plan(640, 160)} as "
         f"(frames, FFTs); J at 768/256 {glstep._fullk_plan(768, 256)} as (route, chunks, frames, FFTs))")
@@ -3681,11 +3946,11 @@ def main() -> int:
 
     def check_polish(n_fft, hop, la, seed):
         """O's polish (gl_polish_fft_kernel, one launch of 4 projections, then
-        one of 16) against gl_polish_reference on 3 sessions of a random grid
-        (phases up to 50 rad): bit-identical (it repeats the kernel's
-        float32 operations in order, and sincosf / atan2f are torch's sin,
-        cos and atan2 on the card); the pinned, frozen and zero rows
-        untouched."""
+        one of 16; its smooth instance at an even 5-smooth n_fft) against
+        gl_polish_reference on 3 sessions of a random grid (phases up to 50
+        rad): bit-identical (it repeats the kernel's float32 operations in
+        order, and sincosf / atan2f are torch's sin, cos and atan2 on the
+        card); the pinned, frozen and zero rows untouched."""
         rt = T.RealtimeSTFT(n_fft=n_fft, hop_length=hop, inversion_mode="pghi_gl", lookahead_frames=la)
         ov, Fb, T_c = n_fft // hop, n_fft // 2 + 1, max(4, 16384 // n_fft)
         ctx = rt.gl_context
@@ -3697,6 +3962,7 @@ def main() -> int:
         lo, hi = rt.gl_frozen(T_c)
         syn = ss._decode_operands(rt.inv_window, float(ov), n_fft, hop)
         plan = ss._polish_plan(n_fft, hop, tp)
+        route = ss.session_route(n_fft)
         require(plan is not None, f"the polish must take {n_fft}/{hop} at {tp} grid frames")
         worst = 0.0
         for iters in (4, 16):
@@ -3710,14 +3976,16 @@ def main() -> int:
                     and torch.equal(p_k[:, -(ov - 1):], gp[:, -(ov - 1):]))
             e = (unit_spec(gm, p_k) - unit_spec(gm, p_p)).abs().max().item()
             worst = max(worst, e)
-            require(ss.launches["gl_polish"] == 1 and ss.routes["gl_polish:fft"] == 1
-                    and sum(ss.launches.values()) == 1, f"polish {n_fft}/{hop}: expected one polish launch")
+            require(ss.launches["gl_polish"] == 1 and ss.routes[f"gl_polish:{route}"] == 1
+                    and sum(ss.launches.values()) == 1, f"polish {n_fft}/{hop}: expected one polish launch on "
+                    f"the {route} route")
             require(same and kept and torch.isfinite(p_k).all().item(),
                     f"polish {n_fft}/{hop} lookahead {la}, {iters} projections: differs from its plain version")
-        log(f"  O polish {n_fft}/{hop} lookahead {la} ({tp} grid frames, plan {plan}): 4 and 16 projections "
-            f"bit-identical to the plain version, |X| (cos, sin) off by {worst:.3e}; pinned, frozen and zero rows "
-            f"untouched")
-        errs["Opol"] = max(errs.get("Opol", 0.0), worst)
+        log(f"  O polish {n_fft}/{hop} lookahead {la} ({route} route, {tp} grid frames, plan {plan}): 4 and 16 "
+            f"projections bit-identical to the plain version, |X| (cos, sin) off by {worst:.3e}; pinned, frozen "
+            f"and zero rows untouched")
+        key = "Opol" if route == "fft" else "Opol_smooth"
+        errs[key] = max(errs.get(key, 0.0), worst)
 
     mag_t = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=N_FFT)
     stft_t = T.STFT(n_fft=N_FFT, hop_length=HOP)
@@ -3731,10 +3999,14 @@ def main() -> int:
     mag_r = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=512)
     check_forward("ragged 512/128 blackman", rag, 512, 128, "blackman", mag_r.mel_bank, -0.2, 0.7)
     check_stats("ragged 512/128 blackman", rag, 512, 128, "blackman")
-    # O's polish at every power of two it takes, lookahead 0 and 4
+    # O's polish at every power of two it takes, lookahead 0 and 4, and its
+    # smooth instance at the five session framings of the smooth route
     for n_fft in (64, 128, 256, 512, 1024, 2048, 4096):
         for la in (0, 4):
             check_polish(n_fft, n_fft // 4, la, 300 + n_fft + la)
+    for n_fft, hop in SESSION_SMOOTH_SHAPES:
+        for la in (0, 4):
+            check_polish(n_fft, hop, la, 300 + n_fft + la)
     spec_main = stft_t.forward(mono)
     gl_mag = spec_main.abs()
     del spec_main
@@ -3887,16 +4159,17 @@ def main() -> int:
                    dgt_gamma(n_fft), args.seed + n_fft + hop, errs)
     del holes
 
-    # K's synthesis on the FFT route at every power of two it takes, against
+    # K's synthesis on the FFT route at every power of two it takes and on
+    # the smooth route at every SMOOTH_SHAPES framing and 1200/300, against
     # its plain version (1e-6: the plain version repeats the kernel's float32
     # operations in order, and sincosf is torch's sin and cos on the card;
     # measured bit-identical) and against a float64 istft of the same
     # magnitudes and float32 phases (1e-5: float32 sums over 2.5 n log2 n
     # terms), on unwrapped phases up to 1e4 rad, with silent frames, a silent
     # clip and an odd frame count whose last pair group has no partners; the
-    # product route at 768/192 and 768/256 (n_fft no power of two) against its
-    # plain version (1e-4: fp32 products in another order than cuBLAS) and
-    # the oracle.
+    # product route at 896/224 (2^7 7) against its plain version (1e-4: fp32
+    # products in another order than cuBLAS) and the oracle.  The route comes
+    # from the rule (pghi_kernel.synth_route).
     def check_synth_route(name, n_fft, hop, x):
         w_s = gaussian_dgt_window(n_fft, device=dev)
         mag = att.ops.stft(x, n_fft, hop, w_s).abs()
@@ -3907,8 +4180,8 @@ def main() -> int:
         mag[1] = 0.0
         g = torch.Generator(device=dev).manual_seed(n_fft + hop)
         ph = 1e4 * torch.rand(mag.shape, generator=g, device=dev)
-        fft = ff.fft_covers(n_fft)
-        route = "fft" if fft else "product"
+        route = pghi_kernel.synth_route(n_fft, hop)
+        fft = route != "product"
         pghi_kernel.reset_launches()
         a_k = pghi_kernel.pghi_synthesize_fused(mag, ph, n_fft, hop, w_s)
         require(pghi_kernel.routes[f"pghi_synthesize:{route}"] == 1, f"K synthesis {name}: not on the {route} route")
@@ -3925,15 +4198,19 @@ def main() -> int:
         require(torch.isfinite(a_k).all().item() and a_k.shape == a_p.shape and not a_k[1].any(),
                 f"K synthesis {name}: bad audio")
         require(e_p <= tol and e_o <= 1e-5, f"K synthesis {name} out of budget")
-        key = "K_synth" if fft else "K_synth_product"
+        key = {"fft": "K_synth", "smooth": "K_synth_smooth", "product": "K_synth_product"}[route]
         errs[key] = max(errs.get(key, 0.0), abs_err(a_k, a_p))
+        return route
 
     for n_fft in (64, 128, 256, 512, 1024, 2048, 4096):
         check_synth_route(f"{n_fft}/{n_fft // 4}", n_fft, n_fft // 4, small)
     check_synth_route("main shape, 16 clips", N_FFT, HOP, mono[:16])
     check_synth_route("512/64", 512, 64, small)
-    for n_fft, hop in ((768, 192), (768, 256)):
-        check_synth_route(f"{n_fft}/{hop}", n_fft, hop, small)
+    for n_fft, hop in SMOOTH_SHAPES + ((1200, 300),):
+        require(check_synth_route(f"{n_fft}/{hop}", n_fft, hop, small) == "smooth",
+                f"K synthesis {n_fft}/{hop}: must take the smooth route")
+    require(check_synth_route("896/224", 896, 224, small) == "product",
+            "K synthesis 896/224: must take the product route")
 
     # G and H: the two-channel representation kernels (Polar "phase",
     # PolarIF "if", Cartesian "imag"), factored (hann) and full-K (gaussian).
@@ -5155,8 +5432,10 @@ def main() -> int:
     # Its FFT route runs, per block of R output chunks, frames_irfft of R + 2
     # overlap frames (fft_design_flops: the pack in place of the split, the
     # window in place of the windowing), sincos and two products per bin (22)
-    # and one addition per sample; the product route (768/256 here, on the
-    # same clips) the product of 2F terms per sample and overlap.
+    # and one addition per sample; the smooth route (768/256 here, on the
+    # same clips) the same with smooth_design_flops; the product route
+    # (896/224 = 2^7 7, on the same clips) the product of 2F terms per sample
+    # and overlap.
     synth_need = fft_flops + B * Tn * (40.0 * F + 2.0 * N_FFT)
     synth_bound = bound_of(8.0 * n_el + 4.0 * n_audio, synth_need)
     k_rows, _ = pghi_kernel._synth_fft_plan(N_FFT, HOP)
@@ -5170,7 +5449,22 @@ def main() -> int:
                                          generator=torch.Generator(device=dev).manual_seed(args.seed + 22))
     w_p_inv = dgt_f.inv_window if n_fft_p == N_FFT else T.DGT(n_fft=n_fft_p, hop_length=hop_p).inv_window
     synth_bound_p = bound_of(8.0 * el_p + 4.0 * n_audio_p, fft_p + B * Tp * (40.0 * Fp + 2.0 * n_fft_p))
-    synth_flops_p = 2.0 * n_audio_p * ov_p * 2.0 * Fp + 22.0 * el_p    # the product this route runs
+    kp_rows, _ = pghi_kernel._synth_fft_plan(n_fft_p, hop_p)
+    kp_blocks = B * -(-(Tp + ov_p - 1) // kp_rows)
+    synth_flops_p = (smooth_design_flops(n_fft_p, kp_blocks * (kp_rows + 2 * ov_p)) + 22.0 * el_p
+                     + float(B * Tp * n_fft_p))
+    # K's synthesis on the product route at 896/224 (2^7 7), the same clips
+    ky_n, ky_hop = 896, 224
+    ky_T, ky_F, ky_ov = 1 + L // ky_hop, ky_n // 2 + 1, ky_n // ky_hop
+    ky_el, ky_audio = float(B * ky_T * ky_F), float(B * (ky_T + ky_ov - 1) * ky_hop)
+    w_ky = gaussian_dgt_window(ky_n, device=dev)
+    ky_target = att.ops.stft(mono, ky_n, ky_hop, w_ky).abs()
+    ky_phases = 2 * math.pi * torch.rand(ky_target.shape, device=dev,
+                                         generator=torch.Generator(device=dev).manual_seed(args.seed + 23))
+    w_ky_inv = T.DGT(n_fft=ky_n, hop_length=ky_hop).inv_window
+    synth_bound_y = bound_of(8.0 * ky_el + 4.0 * ky_audio, 2.5 * ky_n * math.log2(ky_n) * B * ky_T
+                             + B * ky_T * (40.0 * ky_F + 2.0 * ky_n))
+    synth_flops_y = 2.0 * ky_audio * ky_ov * 2.0 * ky_F + 22.0 * ky_el    # the product this route runs
 
     def lib_dgt_spec(x):
         return torch.stft(x, N_FFT, HOP, window=dgt_f.window, center=True, pad_mode="reflect",
@@ -5186,6 +5480,9 @@ def main() -> int:
 
     def lib_istft_p():
         return torch.istft(torch.polar(kp_target, kp_phases).transpose(-2, -1), n_fft_p, hop_p, window=w_p_inv)
+
+    def lib_istft_y():
+        return torch.istft(torch.polar(ky_target, ky_phases).transpose(-2, -1), ky_n, ky_hop, window=w_ky_inv)
 
     def whole_inversion():
         return pghi_kernel.pghi_invert_fused(dgt_target, gamma, N_FFT, HOP, dgt_f.inv_window,
@@ -5296,14 +5593,42 @@ def main() -> int:
              plain=lambda: pghi_kernel.pghi_synthesize_fused_reference(
                  dgt_target, k_phases, N_FFT, HOP, dgt_f.inv_window),
              library=lib_istft, bound=synth_bound, ceiling=ceiling_of(synth_flops)),
-        dict(key="K_synth_product", name="pghi_synthesize_product", front_end="product",
-             source=pghi_src + " (+ csrc/synth_ola.cuh)", replaces=pghi_tpu,
-             launches=counts["pghi_synthesize:product"],
+        dict(key="K_synth_smooth", name="pghi_synthesize_smooth", front_end="smooth",
+             source=pghi_src + " (+ csrc/fft_smem.cuh)", replaces=pghi_tpu,
+             launches=counts["pghi_synthesize:smooth"],
              run=lambda: pghi_kernel.pghi_synthesize_fused(kp_target, kp_phases, n_fft_p, hop_p, w_p_inv),
              plain=lambda: pghi_kernel.pghi_synthesize_fused_reference(
                  kp_target, kp_phases, n_fft_p, hop_p, w_p_inv),
-             library=lib_istft_p, bound=synth_bound_p, ceiling=ceiling_of(synth_flops_p)),
+             library=lib_istft_p, bound=synth_bound_p, ceiling=ceiling_of(synth_flops_p),
+             resources=kp_res.get("K")),
+        dict(key="K_synth_product", name="pghi_synthesize_product", front_end="product",
+             source=pghi_src + " (+ csrc/synth_ola.cuh)", replaces=pghi_tpu,
+             launches=counts["pghi_synthesize:product"],
+             run=lambda: pghi_kernel.pghi_synthesize_fused(ky_target, ky_phases, ky_n, ky_hop, w_ky_inv),
+             plain=lambda: pghi_kernel.pghi_synthesize_fused_reference(
+                 ky_target, ky_phases, ky_n, ky_hop, w_ky_inv),
+             library=lib_istft_y, bound=synth_bound_y, ceiling=ceiling_of(synth_flops_y)),
     ]
+    require(pghi_kernel.synth_route(n_fft_p, hop_p) == "smooth" and pghi_kernel.synth_route(ky_n, ky_hop) == "product",
+            "phase 5: K's synthesis must be smooth at 768/256 and product at 896/224")
+    # K's smooth synthesis at 1200/300 too (a line, not a row): the same
+    # clips, kernel against the library call, back to back
+    kq_w = gaussian_dgt_window(1200, device=dev)
+    kq_target = att.ops.stft(mono, 1200, 300, kq_w).abs()
+    kq_phases = 2 * math.pi * torch.rand(kq_target.shape, device=dev,
+                                         generator=torch.Generator(device=dev).manual_seed(args.seed + 24))
+    kq_inv = T.DGT(n_fft=1200, hop_length=300).inv_window
+    kq_ms = device_ms(lambda: pghi_kernel.pghi_synthesize_fused(kq_target, kq_phases, 1200, 300, kq_inv),
+                      args.repeats)
+    kq_lib = device_ms(lambda: torch.istft(torch.polar(kq_target, kq_phases).transpose(-2, -1), 1200, 300,
+                                           window=kq_inv), args.repeats)
+    kq_el = float(kq_target.numel())
+    kq_b, kq_by = bound_of(8.0 * kq_el + 4.0 * B * (kq_target.shape[1] + 3) * 300,
+                           2.5 * 1200 * math.log2(1200) * B * kq_target.shape[1]
+                           + B * kq_target.shape[1] * (40.0 * 601 + 2.0 * 1200))
+    log(f"  K_synth_smooth at 1200/300 ({tuple(kq_target.shape)}, plan {pghi_kernel._synth_fft_plan(1200, 300)}): "
+        f"{kq_ms:.3f} ms, library {kq_lib:.3f} ms ({kq_ms / kq_lib:.2f}x), bound {kq_b:.3f} ms by {kq_by}")
+    del kq_target, kq_phases
     # ---- the representation kernels.  G computes the Polar / PolarIF
     # forward: what A and E need plus, per bin, an atan2 (about 20
     # operations with its range reduction), the IF's wrap and scaling (about
@@ -5971,39 +6296,88 @@ def main() -> int:
         return y.reshape(SB, -1)[:, : gf_tp * gf_hop]
 
     # O's projection analysis where its route now runs: the two-launch
-    # projection of a grid that the polish does not take, here 1200/300's
-    # (n_fft no power of two); the analysis against its plain version on the
-    # synthesis's signal, the pinned and frozen rows untouched
+    # projection of a grid that the polish does not take, here 1344/336's
+    # (2^6 3 7: no FFT and no smooth route); the analysis against its plain
+    # version on the synthesis's signal, the pinned and frozen rows untouched.
+    # A random grid's re-framed spectrum has bins far below the grid's
+    # magnitude, whose angle float32 rounds to 1e-3 rad and worse (the plain
+    # version's own distance to the float64 analysis on such a grid, measured
+    # on the CPU at 1200/300 and 1344/336: 2.5e-5 to 1.1e-3 of |X| (cos, sin)
+    # by seed), so, as check_pghi holds K's recurrence, the kernel must agree
+    # with the plain version within 1e-4 or, where float32 itself is further
+    # off, within the plain version's measured distance to the float64
+    # analysis, and be no further from the float64 analysis than 1.5 times
+    # the plain version plus 1e-4
+    gx_tx = gx_tp - (ov_x - 1)
+    gx_lo, gx_hi = x_rt.gl_frozen(8)
+    gx_wc, gx_ws = ss._ana_basis(x_rt.window, n_fft_x, ss._k_analysis(n_fft_x))
+    gx_y = ss._launch_decode(gm_x, gp_x, gx_ops, n_fft_x, hop_x, rows=ss.PROJECT_SYN_ROWS, name="gl_project_synthesis")
+    gx_scratch = gp_x.clone()
+
+    def plain_proj_analysis_x():
+        fr = gx_y.unfold(-1, n_fft_x, hop_x)[:, g_ctx:gx_tx]
+        return torch.atan2(torch.matmul(fr, gx_ws[:n_fft_x]), torch.matmul(fr, gx_wc[:n_fft_x]))
+
+    def lib_proj_analysis_x():
+        fr = gx_y.unfold(-1, n_fft_x, hop_x)[:, g_ctx:gx_tx] * x_rt.window
+        return torch.angle(torch.fft.rfft(fr, n=n_fft_x))
+
+    ss._launch_project_analysis(gx_y, gx_scratch, gx_wc, gx_ws, n_fft_x, hop_x, gx_tx, g_ctx, gx_lo, gx_hi)
+    a_p = plain_proj_analysis_x()
+    fr64 = gx_y.double().unfold(-1, n_fft_x, hop_x)[:, g_ctx:gx_tx]
+    a_64 = torch.atan2(torch.matmul(fr64, gx_ws[:n_fft_x].double()), torch.matmul(fr64, gx_wc[:n_fft_x].double()))
+    upd_x = torch.ones(gx_tx - g_ctx, dtype=torch.bool, device=dev)
+    upd_x[gx_lo - g_ctx: gx_hi - g_ctx] = False
+    gm_u = gm_x[:, g_ctx:gx_tx][:, upd_x]
+
+    def angle_off(a, b):
+        return (unit_spec(gm_u, a[:, upd_x]) - unit_spec(gm_u, b[:, upd_x])).abs().max().item()
+    e_oa = angle_off(gx_scratch[:, g_ctx:gx_tx], a_p)
+    e_p64, e_k64 = angle_off(a_p, a_64), angle_off(gx_scratch[:, g_ctx:gx_tx], a_64)
+    tol_oa = max(1e-4, e_p64)
+    kept_x = torch.equal(gx_scratch[:, :g_ctx], gp_x[:, :g_ctx]) and torch.equal(
+        gx_scratch[:, gx_lo:gx_hi], gp_x[:, gx_lo:gx_hi])
+    log(f"  O's projection analysis at 1344/336 ({gx_tx - g_ctx} polished frames, {SB} sessions) against its plain "
+        f"version: |X| (cos, sin) off by {e_oa:.3e} (tol {tol_oa:.3g}); vs the float64 analysis: plain {e_p64:.3e}, "
+        f"kernel {e_k64:.3e} (tol {1.5 * e_p64 + 1e-4:.3g}); pinned and frozen rows kept: {kept_x}")
+    require(e_oa <= tol_oa and e_k64 <= 1.5 * e_p64 + 1e-4 and kept_x,
+            "O's projection analysis at 1344/336 disagrees with its plain version")
+    del fr64, a_64
+    errs["Oana"] = max(errs.get("Oana", 0.0), e_oa)
+    gx_el = float(SB * (gx_tx - g_ctx - (gx_hi - gx_lo)) * F_x)
+    gx_upd = gx_tx - g_ctx - (gx_hi - gx_lo)
+    gx_samples = 4.0 * SB * (gx_tp - g_ctx) * hop_x
+    gx_ana_flops = 4.0 * SB * (gx_tx - g_ctx) * ss._k_analysis(n_fft_x) * 128 * -(-F_x // 128)
+    # O's polish on the smooth route: the 1200/300 grid above (3 pinned + 8 +
+    # 3 zero frames, 64 sessions), gl_iterations projections in one launch;
+    # what the function needs as the Opol row counts it, its design the
+    # mixed-radix stages (smooth_design_flops).  Yardstick: gl_iterations
+    # times the smooth grid's two projection yardsticks
     gq_tx = gq_tp - (ov_q - 1)
     gq_lo, gq_hi = q_rt.gl_frozen(8)
-    gq_wc, gq_ws = ss._ana_basis(q_rt.window, n_fft_q, ss._k_analysis(n_fft_q))
-    gq_y = ss._launch_decode(gm_q, gp_q, gq_ops, n_fft_q, hop_q, rows=ss.PROJECT_SYN_ROWS, name="gl_project_synthesis")
-    gq_scratch = gp_q.clone()
+    gq_rows = gq_tx - g_ctx
+    gq_upd = gq_rows - (gq_hi - gq_lo)
+    gq_el = float(SB * gq_upd * F_q)
+    gq_iters = q_rt.gl_iterations
+    gq_pol = gp_q.clone()
+    gq_plan = ss._polish_plan(n_fft_q, hop_q, gq_tp)
+    require(gq_plan is not None and ss.session_route(n_fft_q) == "smooth",
+            "phase 5: the polish must hold 1200/300's 14-frame grid on the smooth route")
+    gq_pframes = gq_tp + ov_q - 1
+    gq_pairs = sum((gq_pframes - 1 - c) // (2 * ov_q) + 1 for c in range(ov_q))
+    polq_design = gq_iters * (smooth_design_flops(n_fft_q, 2 * SB * gq_pairs)
+                              + smooth_design_flops(n_fft_q, 2 * SB * -(-gq_rows // 2))
+                              + 22.0 * SB * gq_tp * F_q + 20.0 * gq_el)
+    polq_need = gq_iters * (2.5 * n_fft_q * math.log2(n_fft_q) * (gq_fr + SB * gq_upd)
+                            + n_fft_q * (gq_fr + SB * gq_upd) + 22.0 * gq_fr * F_q + 20.0 * gq_el)
+    gq_y = ss._synthesis_reference(gm_q * torch.cos(gp_q), gm_q * torch.sin(gp_q), q_rt.inv_window, float(ov_q),
+                                   n_fft_q, hop_q, gq_tp)
 
-    def plain_proj_analysis_q():
-        fr = gq_y.unfold(-1, n_fft_q, hop_q)[:, g_ctx:gq_tx]
-        return torch.atan2(torch.matmul(fr, gq_ws[:n_fft_q]), torch.matmul(fr, gq_wc[:n_fft_q]))
-
-    def lib_proj_analysis_q():
-        fr = gq_y.unfold(-1, n_fft_q, hop_q)[:, g_ctx:gq_tx] * q_rt.window
-        return torch.angle(torch.fft.rfft(fr, n=n_fft_q))
-
-    ss._launch_project_analysis(gq_y, gq_scratch, gq_wc, gq_ws, n_fft_q, hop_q, gq_tx, g_ctx, gq_lo, gq_hi)
-    a_p = plain_proj_analysis_q()
-    upd_q = torch.ones(gq_tx - g_ctx, dtype=torch.bool, device=dev)
-    upd_q[gq_lo - g_ctx: gq_hi - g_ctx] = False
-    e_oa = (unit_spec(gm_q[:, g_ctx:gq_tx][:, upd_q], gq_scratch[:, g_ctx:gq_tx][:, upd_q])
-            - unit_spec(gm_q[:, g_ctx:gq_tx][:, upd_q], a_p[:, upd_q])).abs().max().item()
-    kept_q = torch.equal(gq_scratch[:, :g_ctx], gp_q[:, :g_ctx]) and torch.equal(
-        gq_scratch[:, gq_lo:gq_hi], gp_q[:, gq_lo:gq_hi])
-    log(f"  O's projection analysis at 1200/300 ({gq_tx - g_ctx} polished frames, 64 sessions) against its plain "
-        f"version: |X| (cos, sin) off by {e_oa:.3e} (tol 1e-04); pinned and frozen rows kept: {kept_q}")
-    require(e_oa <= 1e-4 and kept_q, "O's projection analysis at 1200/300 disagrees with its plain version")
-    errs["Oana"] = max(errs.get("Oana", 0.0), e_oa)
-    gq_el = float(SB * (gq_tx - g_ctx - (gq_hi - gq_lo)) * F_q)
-    gq_upd = gq_tx - g_ctx - (gq_hi - gq_lo)
-    gq_samples = 4.0 * SB * (gq_tp - g_ctx) * hop_q
-    gq_ana_flops = 4.0 * SB * (gq_tx - g_ctx) * ss._k_analysis(n_fft_q) * 128 * -(-F_q // 128)
+    def lib_polish_q():
+        for _ in range(gq_iters):
+            lib_proj_synth_q()
+            fr = gq_y.unfold(-1, n_fft_q, hop_q)[:, g_ctx:gq_tx] * q_rt.window
+            torch.angle(torch.fft.rfft(fr, n=n_fft_q))
     # O's polish (phase 4g's shape, the grid of gl_context 3 + 16 frames and 3
     # zero frames, 64 sessions, gl_iterations 16 projections in one launch).
     # What the function needs: the grid's magnitudes and phases read once and
@@ -6073,14 +6447,23 @@ def main() -> int:
                                                   g_hi, g_iters),
              library=lib_polish, bound=bound_of(8.0 * g_fr * F + 4.0 * g_el, pol_need),
              ceiling=ceiling_of(pol_design)),
+        dict(key="Opol_smooth", name="gl_polish_smooth", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="smooth", replaces=stream_tpu + ":940", launches=counts["gl_polish:smooth"],
+             run=lambda: ss.gl_polish(gm_q, gq_pol, gq_ops, q_rt.inv_window, q_rt.window, None, None, n_fft_q, hop_q,
+                                      g_ctx, gq_lo, gq_hi, gq_iters),
+             plain=lambda: ss.gl_polish_reference(gm_q, gp_q, q_rt.inv_window, q_rt.window, n_fft_q, hop_q, g_ctx,
+                                                  gq_lo, gq_hi, gq_iters),
+             library=lib_polish_q, bound=bound_of(8.0 * gq_fr * F_q + 4.0 * gq_el, polq_need),
+             ceiling=ceiling_of(polq_design),
+             resources=kp_res.get("O resident" if gq_plan[1] else "O device")),
         dict(key="Oana", name="gl_project_analysis", source=stream_src,
              replaces=stream_tpu + ":940", launches=counts["gl_project_analysis"],
-             run=lambda: ss._launch_project_analysis(gq_y, gq_scratch, gq_wc, gq_ws, n_fft_q, hop_q, gq_tx, g_ctx,
-                                                     gq_lo, gq_hi),
-             plain=plain_proj_analysis_q, library=lib_proj_analysis_q,
-             bound=bound_of(gq_samples + 4.0 * gq_el,
-                            2.5 * n_fft_q * math.log2(n_fft_q) * SB * gq_upd + n_fft_q * SB * gq_upd + 20.0 * gq_el),
-             ceiling=ceiling_of(gq_ana_flops + 20.0 * gq_el)),
+             run=lambda: ss._launch_project_analysis(gx_y, gx_scratch, gx_wc, gx_ws, n_fft_x, hop_x, gx_tx, g_ctx,
+                                                     gx_lo, gx_hi),
+             plain=plain_proj_analysis_x, library=lib_proj_analysis_x,
+             bound=bound_of(gx_samples + 4.0 * gx_el,
+                            2.5 * n_fft_x * math.log2(n_fft_x) * SB * gx_upd + n_fft_x * SB * gx_upd + 20.0 * gx_el),
+             ceiling=ceiling_of(gx_ana_flops + 20.0 * gx_el)),
         dict(key="RTs", name="rt_pghi_seeded", source="acids_transforms_tpu_torch/csrc/pghi.cu",
              replaces=stream_tpu + ":668", launches=counts["rt_pghi_seeded"],
              run=lambda: ss._launch_rt_pghi(s_m, s_a, *rs_args, s_prev, s_pp),
@@ -6202,6 +6585,23 @@ def main() -> int:
     for label, r in gl_plan_sweep(mono, args.repeats).items():
         log(f"  GL smooth plan sweep {label} (b2b ms; frames x FFTs): " + "; ".join(
             f"{p['tile']} x {p['teams']} {p['ms']:.3f}" for p in r["rows"])
+            + f"; the rule's pick {r['pick']} {100 * r['over']:+.1f}% over the best {r['best']}")
+
+    # K's synthesis and O's polish on the product / two-launch route against
+    # the smooth one, in turns (reported, not gated): what the smooth route
+    # changed; then under every plan (reported, not gated)
+    kp_turns = k_polish_route_turns(mono, SB, args.repeats, dev)
+    log("  K product vs smooth instance at 768/256 and 1200/300, O's 16 two-launch projections vs the smooth polish "
+        "at 1200/300, in turns old, new, new, old (b2b ms): " + "; ".join(
+            f"{k} {' / '.join(f'{v:.3f}' for v in old)} -> {' / '.join(f'{v:.3f}' for v in new)}"
+            for k, (old, new) in ((k, tuple(t.values())) for k, t in kp_turns.items())))
+    for shape, r in k_synth_plan_sweep(mono, args.repeats).items():
+        log(f"  K smooth plan sweep {shape} (b2b ms; chunks x FFTs): " + "; ".join(
+            f"{p['rows']} x {p['teams']} {p['ms']:.3f}" for p in r["rows"])
+            + f"; the rule's pick {r['pick']} {100 * r['over']:+.1f}% over the best {r['best']}")
+    for shape, r in polish_plan_sweep(SB, args.repeats, dev).items():
+        log(f"  O polish smooth plan sweep {shape}, {SB} sessions, {r['tp']} grid frames (b2b ms; FFTs, grid in "
+            f"shared memory): " + "; ".join(f"{p['teams']}, {p['resident']} {p['ms']:.3f}" for p in r["rows"])
             + f"; the rule's pick {r['pick']} {100 * r['over']:+.1f}% over the best {r['best']}")
 
     # O's host share: a chunk's polish (one launch) and, for the grids the

@@ -16,7 +16,7 @@ which repeats the kernel's schedule where ``frames_fft.fft_covers(n_fft)``:
   ones of the same float32 value);
 * the same result whatever block the card cuts the clip into (a block-by-block
   emulation of the kernel, halo and partners included, bit for bit);
-* the product route at 768/192, no route counted on the CPU, the block plans.
+* the product route at 896/224, no route counted on the CPU, the block plans.
 
 On the card ``chip_smoke.py`` holds the kernel against this plain version.
 """
@@ -129,8 +129,10 @@ def test_fft_schedule_does_not_depend_on_the_block(rows):
 
 
 def test_product_route_at_768_192():
-    n_fft, hop = 768, 192
-    assert not FF.fft_covers(n_fft) and PK.pghi_fused_available(n_fft, hop)
+    """The product route, at 896/224 (2^7 7; 768/192 takes the smooth
+    route)."""
+    n_fft, hop = 896, 224
+    assert PK.synth_route(n_fft, hop) == "product" and PK.pghi_fused_available(n_fft, hop)
     dgt, mag, ang, w, _ = _dgt(n_fft, hop, tones(9000, [(220,), (440, 660)]))
     m, a = torch.as_tensor(mag), torch.as_tensor(ang)
     got = PK.pghi_synthesize_fused(m, a, n_fft, hop, w)
@@ -149,7 +151,7 @@ def test_no_route_counted_on_the_cpu():
     mag = torch.rand(2, 20, 257)
     PK.pghi_synthesize_fused(mag, torch.rand(2, 20, 257), 512, 128, w)
     PK.pghi_invert_fused(mag, pwin.dgt_gamma(512), 512, 128, w)
-    assert set(PK.routes) == {"pghi_synthesize:fft", "pghi_synthesize:product"}
+    assert set(PK.routes) == {"pghi_synthesize:fft", "pghi_synthesize:smooth", "pghi_synthesize:product"}
     assert not any(PK.routes.values()) and not any(PK.launches.values())
 
 
