@@ -13,13 +13,16 @@
 //   melspec_stats_kernel<.., kFrontFft / kFrontSmooth / kFrontProduct>    <- _stats_kernel
 //                                      (full-K)
 //   repr_forward_kernel<.., kFrontFactored> <- _repr_kernel_factored (via _repr_call /
-//                                     fused_spectral_repr), epilogue _repr_channels
-//   repr_forward_kernel<.., kFrontFft / kFrontProduct>  <- _repr_kernel  (full-K)
+//                                     fused_spectral_repr), epilogue _repr_channels; the
+//                                     same rule as A's: the kFrontFft instance at a power
+//                                     of two, the kFrontSmooth one at an even 5-smooth
+//                                     n_fft, under the taps' own window)
+//   repr_forward_kernel<.., kFrontFft / kFrontSmooth / kFrontProduct>  <- _repr_kernel
+//                                     (full-K)
 //   repr_stats_kernel<.., kFrontFactored>   <- _repr_stats_kernel_factored (via
-//                                     _repr_stats_call / fused_repr_stats; where n_fft is
-//                                     a power of two from 64 to 4096 the wrapper sends it
-//                                     to the kFrontFft instance under the taps' own window)
-//   repr_stats_kernel<.., kFrontFft / kFrontProduct>    <- _repr_stats_kernel  (full-K)
+//                                     _repr_stats_call / fused_repr_stats; the same rule)
+//   repr_stats_kernel<.., kFrontFft / kFrontSmooth / kFrontProduct>    <- _repr_stats_kernel
+//                                     (full-K)
 //   stats_reduce_kernel     <- the accumulation the TPU kernel carried across its
 //                              sequential grid (_stats_update)
 //   melspec_stage_kernel<kStage> <- the stage-prefix kernel of
@@ -35,9 +38,9 @@
 // window and the twiddle table staged once a block, no basis read), its
 // epilogue handed every bin of a frame pair.  Where n_fft is even and
 // 2^a 3^b 5^c, 64 to 4096 and no power of two (fft_covers_smooth: 768, 640,
-// 1536, 1920, ...) E and F (and so A and B) take the smooth route,
-// kFrontSmooth: the same with frames_rfft<true>, the mixed-radix stages (G
-// and H keep their product route there).  Otherwise the product route,
+// 1536, 1920, ...) E, F, G and H (and so A, B and G and H with taps) take the
+// smooth route, kFrontSmooth: the same with frames_rfft<true>, the
+// mixed-radix stages.  Otherwise the product route,
 // kFrontProduct: a window-folded basis of n_fft x F (cos |
 // -sin), all F bins in one fp32 product; the contraction is n_fft long
 // instead of hop, so it does `overlap` times the multiply-adds of the
@@ -86,10 +89,11 @@
 // reduced per column tile from shared memory, with channel 1 the non-mel
 // contrasted magnitude (what Magnitude.fit fits on).
 //
-// The representation kernels' FFT route (repr_forward_fft, repr_stats_fft)
-// rearranges that epilogue around frames_rfft, which hands over every bin of
-// a frame pair instead of one column tile of all frames; what it computes is
-// unchanged.  Each bin is formed in the emit (the nyquist pin, the angle's
+// The representation kernels' FFT and smooth routes (repr_forward_fft,
+// repr_stats_fft; kSmooth runs frames_rfft<true>, the mixed-radix stages, and
+// changes nothing else) rearrange that epilogue around frames_rfft, which
+// hands over every bin of a frame pair instead of one column tile of all
+// frames; what it computes is unchanged.  Each bin is formed in the emit (the nyquist pin, the angle's
 // rules); without a mel bank channel 1 goes straight to device memory, with
 // one it waits in shared memory for the banded product (emit_mel_rows:
 // emit_tile's sums, eight rows at a time); the IF's angles of the tile and
@@ -100,8 +104,10 @@
 // its tile: the halo frame t0 - 1 then goes through the FFT with its partner
 // t0 - 2 as in every other block and in the plain version (frames_rfft_
 // reference over the whole clip), and rounds alike.  The rows carry two
-// leading zero chunks for it.  Every product and sum of the magnitude is
-// rounded on its own (__fmul_rn / __fadd_rn), as the plain version has it.
+// leading zero chunks for it.  The smooth route's frames_rfft<true> pairs the
+// frames alike, so the same rule holds there.  Every product and sum of the
+// magnitude is rounded on its own (__fmul_rn / __fadd_rn), as the plain
+// version has it.
 //
 // Arithmetic is fp32 FMA with fp32 accumulation: no tensor cores yet.  What
 // keeps it from that ceiling: one block of 8 warps per SM (the magnitudes take
@@ -494,7 +500,7 @@ __host__ __device__ inline size_t repr_fft_smem_floats(int tile_t, int hop, int 
     int c1, c2;
     repr_fft_rows(tile_t, second, stats, mel, &c1, &c2);
     return (size_t)(tile_t + repr_fft_halo(second) + overlap - 1) * hop + (size_t)(c1 + c2) * F +
-           fft_smem_floats(overlap * hop, teams);
+           fft_area_floats(overlap * hop, teams);
 }
 
 // The unwrapped difference of two consecutive phases is their principal
@@ -604,24 +610,25 @@ __device__ void emit_mel_rows(const float* c1, long long b, int t_base, int t_va
 // t_valid frames, emit(t, k, re, im) with the tile row t (-2 and -1: the
 // IF's halo) and the nyquist bin's imaginary part pinned to 0; the FFT's
 // area starts at fft_area.  Ends with a barrier.
-template <bool kInt16, typename Emit>
+template <bool kInt16, bool kSmooth, typename Emit>
 __device__ void repr_fft_front(const ReprArgs& a, long long b, int t_base, int t_valid, float* xs,
                                float* fft_area, Emit emit) {
     const int hf = repr_fft_halo(a.second);
     const int n = a.overlap * a.hop;
     const int n_frames = hf + t_valid;
-    const FftSmem fs = carve_fft(fft_area, n);
-    fft_stage(a.fft.win, a.fft.tw, fs, n);  // load_rows' barrier covers it
+    const FftSmem fs = carve_fft<kSmooth>(fft_area, n);
+    fft_stage<kSmooth>(a.fft.win, a.fft.tw, fs, n);  // load_rows' barrier covers it
     load_rows<kInt16>(a.x_rows, (size_t)b * a.n_rows_total + (size_t)t_base,
                       n_frames + a.overlap - 1, a.hop, xs);
     const int F = a.F;
-    frames_rfft(xs, n_frames, a.hop, n, fs, a.fft.teams, [&](int r, int k, float re, float im) {
+    frames_rfft<kSmooth>(xs, n_frames, a.hop, n, fs, a.fft.teams, [&](int r, int k, float re, float im) {
         emit(r - hf, k, re, k == F - 1 ? 0.0f : im);
     });
 }
 
-// Kernel G on the FFT route (see the notes at the top).
-template <bool kInt16>
+// Kernel G on the FFT route, or with kSmooth the smooth one (see the notes
+// at the top).
+template <bool kInt16, bool kSmooth>
 __device__ void repr_forward_fft(const ReprArgs& a, long long b, int tile, float* smem) {
     const int F = a.F, T = a.T, second = a.second;
     const bool mel = a.mel_bank != nullptr && second != kSecondImag;
@@ -634,7 +641,7 @@ __device__ void repr_forward_fft(const ReprArgs& a, long long b, int tile, float
     float* ph_s = c1_s + (size_t)c1r * F;  // the IF: row t + 1 holds tile row t's angles
     const float off1 = a.aff[0], s1 = a.aff[1], off2 = a.aff[2], s2 = a.aff[3];
     const size_t row0 = (size_t)b * T + t_base;
-    repr_fft_front<kInt16>(a, b, t_base, t_valid, xs, ph_s + (size_t)c2r * F,
+    repr_fft_front<kInt16, kSmooth>(a, b, t_base, t_valid, xs, ph_s + (size_t)c2r * F,
                            [&](int t, int k, float re, float im) {
         if (second == kSecondImag) {
             a.out1[(row0 + t) * F + k] = (re - off1) / s1;
@@ -668,10 +675,10 @@ __device__ void repr_forward_fft(const ReprArgs& a, long long b, int tile, float
     }
 }
 
-// Kernel H on the FFT route: both channels of the tile in shared memory, then
-// each column folded over the frames in frame order (as the product route
-// folds), into the block's partials.
-template <bool kInt16>
+// Kernel H on the FFT (or, kSmooth, the smooth) route: both channels of the
+// tile in shared memory, then each column folded over the frames in frame
+// order (as the product route folds), into the block's partials.
+template <bool kInt16, bool kSmooth>
 __device__ void repr_stats_fft(const ReprArgs& a, long long blk, long long b, int tile, float* smem) {
     const int F = a.F, T = a.T, second = a.second;
     int c1r, c2r;
@@ -682,7 +689,7 @@ __device__ void repr_stats_fft(const ReprArgs& a, long long blk, long long b, in
     float* xs = smem;
     float* c1_s = xs + (size_t)(a.tile_t + repr_fft_halo(second) + a.overlap - 1) * a.hop;
     float* c2_s = c1_s + (size_t)c1r * F;  // the IF: row t + 1 holds tile row t's angle
-    repr_fft_front<kInt16>(a, b, t_base, t_valid, xs, c2_s + (size_t)c2r * F,
+    repr_fft_front<kInt16, kSmooth>(a, b, t_base, t_valid, xs, c2_s + (size_t)c2r * F,
                            [&](int t, int k, float re, float im) {
         if (second == kSecondImag) {
             c1_s[t * F + k] = re;
@@ -723,15 +730,16 @@ __device__ void repr_stats_fft(const ReprArgs& a, long long blk, long long b, in
     }
 }
 
-// On the FFT route at most 128 registers a thread, as melspec_forward_kernel's.
+// On the FFT and smooth routes at most 128 registers a thread, as
+// melspec_forward_kernel's.
 template <bool kInt16, int kFront>
-__global__ void __launch_bounds__(kThreads, kFront == kFrontFft ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, front_is_fft(kFront) ? 2 : 1)
 repr_forward_kernel(ReprArgs a) {
     extern __shared__ __align__(16) float smem[];
-    if constexpr (kFront == kFrontFft) {
+    if constexpr (front_is_fft(kFront)) {
         const long long blk = blockIdx.x;
         const long long b = blk / a.n_tiles;
-        repr_forward_fft<kInt16>(a, b, (int)(blk - b * a.n_tiles), smem);
+        repr_forward_fft<kInt16, kFront == kFrontSmooth>(a, b, (int)(blk - b * a.n_tiles), smem);
     } else {
         const int halo = a.second == kSecondIF ? 1 : 0;
         const int F = a.F, T = a.T;
@@ -804,13 +812,13 @@ repr_forward_kernel(ReprArgs a) {
 }
 
 template <bool kInt16, int kFront>
-__global__ void __launch_bounds__(kThreads, kFront == kFrontFft ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, front_is_fft(kFront) ? 2 : 1)
 repr_stats_kernel(ReprArgs a) {
     extern __shared__ __align__(16) float smem[];
-    if constexpr (kFront == kFrontFft) {
+    if constexpr (front_is_fft(kFront)) {
         const long long blk = blockIdx.x;
         const long long b = blk / a.n_tiles;
-        repr_stats_fft<kInt16>(a, blk, b, (int)(blk - b * a.n_tiles), smem);
+        repr_stats_fft<kInt16, kFront == kFrontSmooth>(a, blk, b, (int)(blk - b * a.n_tiles), smem);
     } else {
         const int halo = a.second == kSecondIF ? 1 : 0;
         const int F = a.F, T = a.T;
@@ -1151,8 +1159,9 @@ long long att_repr_smem_bytes(int tile_t, int hop, int overlap, int F, int stats
     return (long long)att::repr_smem_bytes(tile_t, hop, overlap, F, stats != 0);
 }
 
-// The same for the FFT route with `teams` FFTs side by side, channel-2
-// selector `second` and a mel bank or not.
+// The same for the FFT route (n_fft a power of two) or the smooth route
+// (n_fft even, 5-smooth, no power of two) with `teams` FFTs side by side,
+// channel-2 selector `second` and a mel bank or not.
 long long att_repr_fft_smem_bytes(int tile_t, int hop, int overlap, int F, int teams, int stats,
                                   int second, int mel) {
     return (long long)(att::repr_fft_smem_floats(tile_t, hop, overlap, F, teams, stats != 0, second,
@@ -1166,10 +1175,11 @@ long long att_repr_fft_smem_bytes(int tile_t, int hop, int overlap, int F, int t
 // product route (bcos / bsin the window-folded (n_fft, F) basis).  On these
 // two x_rows has one leading zero chunk, n_rows_total >= n_tiles * tile_t +
 // overlap, tile_t one of 32, 16, 8, hop a multiple of 32.  fft_teams > 0: the
-// FFT route (n_fft = overlap hop a power of two from 64 to 4096, F = n_fft / 2
-// + 1; window (n_fft,), fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft),
-// fft_teams <= 4096 / n_fft FFTs side by side; bcos / bsin / twr / twi not
-// read); x_rows has 2 leading zero chunks with the IF (second = 1), none
+// FFT route (n_fft = overlap hop a power of two from 64 to 4096, fft_teams <=
+// 4096 / n_fft FFTs side by side) or the smooth route (n_fft even, 2^a 3^b
+// 5^c, 64 to 4096 and no power of two, fft_teams <= fft_smooth_max_teams(n_fft)),
+// F = n_fft / 2 + 1; window (n_fft,), fft_tw (2, n_fft) = (cos, -sin)(2 pi j
+// / n_fft); bcos / bsin / twr / twi not read; x_rows has 2 leading zero chunks with the IF (second = 1), none
 // otherwise, n_rows_total >= n_tiles * tile_t + that + overlap - 1; tile_t
 // one of 32, 16, 8, 4, 2.  second: 0 phase, 1 IF, 2 imag.  G: aff = [off1,
 // scale1, off2, scale2] on the device, out1 / out2: (B, T, F) float32;
@@ -1188,8 +1198,9 @@ int att_repr(int stats_mode, const void* x_rows, int x_int16, long long B, int n
     const bool fft = fft_teams > 0;
     const int n_fft = overlap * hop;
     if (P >= kMaxTaps || overlap < 1 || second < 0 || second > 2 ||
-        (fft && (!fullk || !fft_covers(n_fft) || F != n_fft / 2 + 1 ||
-                 fft_teams > fft_max_teams(n_fft) ||
+        (fft && (!fullk || F != n_fft / 2 + 1 ||
+                 !((fft_covers(n_fft) && fft_teams <= fft_max_teams(n_fft)) ||
+                   (fft_covers_smooth(n_fft) && fft_teams <= fft_smooth_max_teams(n_fft))) ||
                  (tile_t != 32 && tile_t != 16 && tile_t != 8 && tile_t != 4 && tile_t != 2))) ||
         (!fft && (tile_t + overlap > kMaxRows || (tile_t != 32 && tile_t != 16 && tile_t != 8) ||
                   hop % kKC != 0))) {
@@ -1219,7 +1230,8 @@ int att_repr(int stats_mode, const void* x_rows, int x_int16, long long B, int n
     } while (0)
 #define ATT_LAUNCH_REPR_FR(KERNEL, I16)                                                    \
     do {                                                                                   \
-        if (fft) ATT_LAUNCH_REPR(KERNEL, I16, kFrontFft);                                  \
+        if (fft && fft_covers(n_fft)) ATT_LAUNCH_REPR(KERNEL, I16, kFrontFft);             \
+        else if (fft) ATT_LAUNCH_REPR(KERNEL, I16, kFrontSmooth);                          \
         else if (fullk) ATT_LAUNCH_REPR(KERNEL, I16, kFrontProduct);                       \
         else ATT_LAUNCH_REPR(KERNEL, I16, kFrontFactored);                                 \
     } while (0)

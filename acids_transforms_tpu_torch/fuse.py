@@ -34,8 +34,8 @@ Backends:
   device, the chain is eligible and its shape lies inside the kernel's
   region measured on the H100 (``regions.py``: per pattern the n_fft range
   and the routes where the kernel won: the FFT route at a power of two, the
-  smooth route of the log-mel and MFCC kernels at an even 5-smooth n_fft,
-  the product or factored front end elsewhere), else the eager
+  smooth route at an even 5-smooth n_fft, the product or factored front end
+  elsewhere), else the eager
   formulation, which was measured faster at the shapes the kernel covers
   outside the region.
 
@@ -426,7 +426,8 @@ def _kernel_preferred(chain: AudioTransform) -> bool:
 def _fit_region(stft_t, two_channel: bool = False) -> bool:
     """A window with taps fits on the kernel wherever it is available, one
     without inside its family's measured region (F's, or with
-    ``two_channel`` H full-K's: F has the smooth route, H does not)."""
+    ``two_channel`` H full-K's: each region lists the routes its kernel won
+    on, measured apart)."""
     return stft_t._window_taps is not None or fit_fullk_region_ok(stft_t.n_fft, two_channel)
 
 

@@ -36,15 +36,15 @@ instances compute A's and B's functions for any window.  Every other
 (Polar, PolarIF, Cartesian): one DFT feeds channel 1 (``|X|`` through mel,
 contrast and affine, or ``Re``) and channel 2 (the angle, the frame-local
 instantaneous frequency, or ``Im``) with an affine each.  Their full-K front
-end (kernels G and H full-K) takes the same two routes by the same rule; on
-the FFT route a block with the IF computes two frames before its tile (the
-halo frame and its FFT partner), so that every frame goes through the FFT
-with the partner it has in the plain version's whole-clip schedule.  With
-``taps`` the forward (kernel G) and the statistics (kernel H) take G and H
-full-K's FFT route under the taps' own window where ``fft_covers(n_fft)``,
-the factored front end elsewhere (:func:`_repr_plan`): the representation
-kernels have no smooth route, so their plain versions keep the factored and
-product front ends at 768.  ``routes`` counts the launches by route.
+end (kernels G and H full-K) takes the same three routes by the same rule
+(:func:`melspec_route`); on the FFT and the smooth route a block with the IF
+computes two frames before its tile (the halo frame and its FFT partner), so
+that every frame goes through the FFT with the partner it has in the plain
+version's whole-clip schedule.  With ``taps`` the forward (kernel G) and the
+statistics (kernel H) take G and H full-K's FFT or smooth route under the
+taps' own window where ``fft_covers(n_fft)`` or ``fft_covers_smooth(n_fft)``,
+the factored front end elsewhere (:func:`_repr_plan`); their plain versions
+follow the same rule.  ``routes`` counts the launches by route.
 
 ``melspec_forward_stage`` runs the factored forward cut after one of its
 stages (``STAGES``) on prepared rows: the kernel of the floor sweep
@@ -84,7 +84,6 @@ from .frames_fft import (
     fft_covers,
     fft_covers_smooth,
     fft_max_teams,
-    fft_smem_floats,
     fft_smooth_max_teams,
     fft_twiddles,
     frames_rfft_reference,
@@ -127,18 +126,20 @@ launches: Dict[str, int] = {
 #: the launches by route, ``"<kernel>:fft"`` / ``"<kernel>:smooth"`` /
 #: ``"<kernel>:product"`` / ``"<kernel>:factored"`` (each also counts in
 #: ``launches``): the full-K kernels, and A, B, G and H with taps (the FFT
-#: route where ``fft_covers(n_fft)``, for A, B, E and F the smooth route
-#: where ``fft_covers_smooth(n_fft)``, the factored front end elsewhere)
+#: route where ``fft_covers(n_fft)``, the smooth route where
+#: ``fft_covers_smooth(n_fft)``, the factored front end elsewhere)
 routes: Dict[str, int] = {
     "fused_melspec_fullk:fft": 0, "fused_melspec_fullk:smooth": 0, "fused_melspec_fullk:product": 0,
     "fused_melspec_stats_fullk:fft": 0, "fused_melspec_stats_fullk:smooth": 0,
     "fused_melspec_stats_fullk:product": 0,
     "fused_melspec:fft": 0, "fused_melspec:smooth": 0, "fused_melspec:factored": 0,
     "fused_melspec_stats:fft": 0, "fused_melspec_stats:smooth": 0, "fused_melspec_stats:factored": 0,
-    "fused_spectral_repr:fft": 0, "fused_spectral_repr:factored": 0,
-    "fused_repr_stats:fft": 0, "fused_repr_stats:factored": 0,
-    "fused_spectral_repr_fullk:fft": 0, "fused_spectral_repr_fullk:product": 0,
-    "fused_repr_stats_fullk:fft": 0, "fused_repr_stats_fullk:product": 0,
+    "fused_spectral_repr:fft": 0, "fused_spectral_repr:smooth": 0, "fused_spectral_repr:factored": 0,
+    "fused_repr_stats:fft": 0, "fused_repr_stats:smooth": 0, "fused_repr_stats:factored": 0,
+    "fused_spectral_repr_fullk:fft": 0, "fused_spectral_repr_fullk:smooth": 0,
+    "fused_spectral_repr_fullk:product": 0,
+    "fused_repr_stats_fullk:fft": 0, "fused_repr_stats_fullk:smooth": 0,
+    "fused_repr_stats_fullk:product": 0,
 }
 #: channel-2 selectors of the representation kernels
 SECONDS = {"phase": 0, "if": 1, "imag": 2}
@@ -264,18 +265,19 @@ def _repr_fft_halo(second: str) -> int:
 
 def _repr_fft_smem_bytes(tile_t: int, hop: int, overlap: int, n_bins: int, teams: int, stats: bool,
                          second: str, mel: bool) -> int:
-    """Shared memory of one block of G or H on the FFT route, as
-    ``csrc/spectral.cu:repr_fft_smem_floats`` lays it out: the hop chunks of
-    the tile and its halo, rows of ``n_bins`` (channel 1 for the mel product,
-    a multiple of 8; the IF's angles of the tile and its halo frame; the
-    statistics kernel's two channels), then ``frames_rfft``'s area."""
+    """Shared memory of one block of G or H on the FFT or the smooth route,
+    as ``csrc/spectral.cu:repr_fft_smem_floats`` lays it out: the hop chunks
+    of the tile and its halo, rows of ``n_bins`` (channel 1 for the mel
+    product, a multiple of 8; the IF's angles of the tile and its halo frame;
+    the statistics kernel's two channels), then ``frames_rfft``'s area on the
+    route ``overlap * hop`` takes."""
     if stats:
         c1, c2 = tile_t, tile_t + 1 if second == "if" else tile_t
     else:
         c1 = -(-tile_t // 8) * 8 if mel and second != "imag" else 0
         c2 = tile_t + 1 if second == "if" else 0
     rows = tile_t + _repr_fft_halo(second) + overlap - 1
-    return 4 * (rows * hop + (c1 + c2) * n_bins + fft_smem_floats(overlap * hop, teams))
+    return 4 * (rows * hop + (c1 + c2) * n_bins + fft_area_floats(overlap * hop, teams))
 
 
 def _pick_repr_fft_plan(n_fft: int, hop: int, stats: bool, second: str,
@@ -300,6 +302,31 @@ def _pick_repr_fft_plan(n_fft: int, hop: int, stats: bool, second: str,
                 if sc > score:
                     best, score = (tile_t, teams), sc
             teams //= 2
+    return best
+
+
+def _pick_repr_smooth_plan(n_fft: int, hop: int, stats: bool, second: str,
+                           mel: bool) -> Optional[Tuple[int, int]]:
+    """``(tile_t, teams)`` of G or H on the smooth route: among the frame
+    tiles (``FFT_TILES``) and the powers of two of FFTs side by side up to
+    ``fft_smooth_max_teams(n_fft)`` whose block fits shared memory, the most
+    tile frames per round of pair FFTs (the ``tile_t + halo`` frames of a
+    block with the IF) times the blocks an SM holds (its shared memory at a
+    block's bytes, 1 KB reserved each, at most two: the instances' 128
+    registers), as :func:`_pick_smooth_plan` scores them; ties to the wider
+    tile, then to fewer FFTs; or None."""
+    overlap, n_bins = n_fft // hop, n_fft // 2 + 1
+    best, score = None, 0.0
+    for tile_t in FFT_TILES:
+        pairs = -(-(tile_t + _repr_fft_halo(second)) // 2)
+        teams = 1
+        while teams <= fft_smooth_max_teams(n_fft):
+            b = _repr_fft_smem_bytes(tile_t, hop, overlap, n_bins, teams, stats, second, mel)
+            if b <= MAX_SMEM:
+                sc = min(2, SM_SMEM // (b + 1024)) * tile_t / -(-pairs // teams)
+                if sc > score:
+                    best, score = (tile_t, teams), sc
+            teams *= 2
     return best
 
 
@@ -380,8 +407,9 @@ def _fullk_spectrum(x, n_fft, hop, center, window, smooth: bool = False):
     the FFT route's schedule over the whole clip (``frames_rfft_reference``:
     frames paired ``(2j, 2j + 1)``, as the kernels' even tiles pair them);
     with ``smooth`` where ``fft_covers_smooth(n_fft)`` the smooth route's
-    (E and F have it, G and H do not); otherwise the window lies in the
-    basis."""
+    (every kernel's plain version passes it, through :func:`_spectrum`;
+    without it tests get the product route there); otherwise the window
+    lies in the basis."""
     rows, T, _ = _prepare_rows(x, n_fft, hop, center)
     flat = _rows_to_float(rows).reshape(rows.shape[0], -1)
     frames = flat.unfold(-1, n_fft, hop)[:, :T]
@@ -393,17 +421,17 @@ def _fullk_spectrum(x, n_fft, hop, center, window, smooth: bool = False):
     return torch.matmul(frames, WC), torch.matmul(frames, WS)
 
 
-def _spectrum(x, n_fft, hop, center, taps, window, smooth: bool = False):
-    """(re, im) of the front end and route the kernels take: the full-K one
-    on its route without ``taps``; with them, where ``fft_covers(n_fft)`` (or
-    with ``smooth``, the melspec family's flag, where
-    ``fft_covers_smooth(n_fft)``), the FFT (smooth) route's schedule under
-    the taps' own window, else the factored front end."""
+def _spectrum(x, n_fft, hop, center, taps, window):
+    """(re, im) of the front end and route the kernels take
+    (:func:`melspec_route`): the full-K one on its route without ``taps``;
+    with them, where ``fft_covers(n_fft)`` or ``fft_covers_smooth(n_fft)``,
+    the FFT or the smooth route's schedule under the taps' own window, else
+    the factored front end."""
     if taps is None:
-        return _fullk_spectrum(x, n_fft, hop, center, window, smooth)
-    if fft_covers(n_fft) or (smooth and fft_covers_smooth(n_fft)):
+        return _fullk_spectrum(x, n_fft, hop, center, window, smooth=True)
+    if melspec_route(n_fft) != "other":
         (w,) = _tables(taps_window, x.device, tuple(float(t) for t in taps), n_fft)
-        return _fullk_spectrum(x, n_fft, hop, center, w, smooth)
+        return _fullk_spectrum(x, n_fft, hop, center, w, smooth=True)
     return _factored_spectrum(x, n_fft, hop, center, taps)
 
 
@@ -451,7 +479,7 @@ def fused_melspec_reference(
     route's schedule over the whole clip, with ``taps`` under the taps' own
     window; the product or the factored front end elsewhere)."""
     _check_input(x, n_fft, hop_length, taps, window)
-    re, im = _spectrum(x, n_fft, hop_length, center, taps, window, smooth=True)
+    re, im = _spectrum(x, n_fft, hop_length, center, taps, window)
     return _melspec_epilogue(re, im, mel_bank, offset, scale, contrast, power, out_dtype)
 
 
@@ -480,7 +508,7 @@ def fused_melspec_stats_reference(
     kernel takes (as :func:`fused_melspec_reference`'s)."""
     x = x.reshape((-1, x.shape[-1]))
     _check_input(x, n_fft, hop_length, taps, window)
-    re, im = _spectrum(x, n_fft, hop_length, center, taps, window, smooth=True)
+    re, im = _spectrum(x, n_fft, hop_length, center, taps, window)
     v = _apply_contrast(torch.sqrt(re * re + im * im), contrast)
     vd = v.double()
     return {
@@ -840,9 +868,10 @@ def _if_rows(ph: torch.Tensor, weighted: bool) -> torch.Tensor:
 
 def _repr_channels(x, n_fft, hop, center, taps, window, second, contrast, mel_bank, weighted):
     """Pre-affine (channel 1, channel 2) of the representation kernels, on
-    the front end and route the kernel takes: the FFT route's schedule over
-    the whole clip where ``fft_covers(n_fft)`` (with ``taps`` under the taps'
-    own window), the factored or the product front end elsewhere."""
+    the front end and route the kernel takes (:func:`melspec_route`): the FFT
+    or the smooth route's schedule over the whole clip (with ``taps`` under
+    the taps' own window), the factored or the product front end
+    elsewhere."""
     re, im = _spectrum(x, n_fft, hop, center, taps, window)
     im = _pin_nyquist(im)
     if second == "imag":
@@ -871,7 +900,8 @@ def fused_spectral_repr_reference(
     taps: Optional[tuple] = None,
     window: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`fused_spectral_repr`."""
+    """Plain PyTorch version of :func:`fused_spectral_repr`, on the route the
+    kernel takes (:func:`melspec_route`)."""
     _check_repr(x, n_fft, hop_length, second, taps, window)
     if second == "imag":
         mel_bank, contrast = None, "none"
@@ -892,8 +922,9 @@ def fused_repr_stats_reference(
     window: Optional[torch.Tensor] = None,
 ) -> dict:
     """Plain PyTorch version of :func:`fused_repr_stats`, on the route the
-    kernel takes (with ``taps`` the FFT route's schedule under the taps' own
-    window where ``fft_covers(n_fft)``)."""
+    kernel takes (as :func:`fused_spectral_repr_reference`'s: with ``taps``
+    the FFT or the smooth route's schedule under the taps' own window where
+    ``fft_covers(n_fft)`` or ``fft_covers_smooth(n_fft)``)."""
     x = x.reshape((-1, x.shape[-1]))
     _check_repr(x, n_fft, hop_length, second, taps, window)
     if second == "imag":
@@ -929,11 +960,17 @@ def _repr_kernel_tile(n_fft, hop, taps) -> int:
 
 def _repr_plan(n_fft, hop, taps, stats, second, mel) -> Tuple[int, int]:
     """``(tile_t, teams)`` of the representation kernels for this shape,
-    ``teams = 0`` off the FFT route, or raise: the kernels never give way.
-    ``fft_covers(n_fft)`` selects the FFT route for every launch, with taps
-    (under their own window) or without, as :func:`_kernel_plan` does."""
-    if fft_covers(n_fft) and fused_melspec_available(n_fft, hop, taps):
-        plan = _pick_repr_fft_plan(n_fft, hop, stats, second, mel)
+    ``teams = 0`` off the FFT and smooth routes, or raise: the kernels never
+    give way.  The route is :func:`melspec_route`'s for every launch, with
+    taps (under their own window) or without, as :func:`_kernel_plan` has
+    it: the FFT route (:func:`_pick_repr_fft_plan`) where
+    ``fft_covers(n_fft)``, the smooth route (:func:`_pick_repr_smooth_plan`)
+    where ``fft_covers_smooth(n_fft)``, the factored or the product front
+    end elsewhere."""
+    route = melspec_route(n_fft)
+    if route != "other" and fused_melspec_available(n_fft, hop, taps):
+        pick = _pick_repr_fft_plan if route == "fft" else _pick_repr_smooth_plan
+        plan = pick(n_fft, hop, stats, second, mel)
         if plan is None:
             raise _repr_refusal(n_fft, hop)
         return plan
@@ -948,7 +985,7 @@ def _launch_repr(x, n_fft, hop, second, taps, window, contrast, weighted, center
         _apply_contrast(x, contrast)  # raises with the reason
     dev = x.device
     F = n_fft // 2 + 1
-    # the FFT route reads frame f from row f + its halo, the others from row f + 1
+    # the FFT and smooth routes read frame f from row f + its halo, the others from row f + 1
     lead = _repr_fft_halo(second) if teams else 1
     rows, T, n_tiles = _prepare_rows(x, n_fft, hop, center, tile_t, lead=lead)
     B = rows.shape[0]

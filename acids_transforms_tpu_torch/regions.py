@@ -11,14 +11,12 @@ None comes from the JAX package's table, whose values are TPU crossovers.
 A shape region is ``n_fft_min <= n_fft <= n_fft_max`` and the list
 ``routes`` of the kernel routes it admits (:func:`kernel_route`): ``"fft"``
 (the shared-memory FFT, ``n_fft`` a power of two, 64-4096), ``"smooth"`` (the
-mixed-radix FFT at an even 5-smooth ``n_fft`` that is no power of two: the
-log-mel and MFCC forwards and the log-mel fit, kernels A, B, E and F, have
-it; the representation kernels G and H do not) and ``"product"`` /
+mixed-radix FFT at an even 5-smooth ``n_fft`` that is no power of two: every
+kernel of these regions, A, B, E, F, G and H, has it) and ``"product"`` /
 ``"factored"`` (the full-K and the cosine-sum front ends everywhere else).
 A route is listed only where every point of it the sweep measured won
-against the eager route: 768/192 measures the smooth route of A, B, E, F
-and the factored and product routes of G and H, 896/224 (2^7 7) the
-factored and product routes of all.  A region has no overlap bound: the
+against the eager route: 768/192 measures the smooth route of every
+pattern, 896/224 (2^7 7) the factored and product routes.  A region has no overlap bound: the
 kernels' own gate (2 <= n_fft / hop <= 8) is the whole range, and the kernel
 won at each overlap measured, so the functions take ``hop_length`` for the
 JAX package's signatures only.
@@ -33,7 +31,6 @@ import os
 from functools import lru_cache
 from typing import Optional
 
-from .ops.cuda.frames_fft import fft_covers
 from .ops.cuda.spectral import melspec_route
 
 __all__ = [
@@ -57,12 +54,12 @@ def table() -> dict:
         return json.load(f)
 
 
-def kernel_route(n_fft: int, has_taps: bool, smooth: bool) -> str:
-    """The route a kernel takes at ``n_fft``: ``"fft"`` where ``fft_covers``;
-    for a kernel that has the smooth route (``smooth``: A, B, E, F)
-    ``ops/cuda/spectral.py:melspec_route``'s decision; else ``"factored"``
-    with cosine-sum taps and ``"product"`` without."""
-    route = melspec_route(n_fft) if smooth else ("fft" if fft_covers(n_fft) else "other")
+def kernel_route(n_fft: int, has_taps: bool) -> str:
+    """The route a kernel of these regions (A, B, E, F, G, H) takes at
+    ``n_fft``: ``ops/cuda/spectral.py:melspec_route``'s ``"fft"`` or
+    ``"smooth"``, else ``"factored"`` with cosine-sum taps and
+    ``"product"`` without."""
+    route = melspec_route(n_fft)
     if route != "other":
         return route
     return "factored" if has_taps else "product"
@@ -79,7 +76,7 @@ def melspec_region_ok(n_fft: int, hop_length: int, has_taps: bool) -> bool:
     any other window (the DGT's gaussian)."""
     t = table()["fuse_forward"]
     return _in_shape_region(t["melspec_taps" if has_taps else "melspec_fullk"], n_fft,
-                            kernel_route(n_fft, has_taps, smooth=True))
+                            kernel_route(n_fft, has_taps))
 
 
 def repr_region_ok(n_fft: int, hop_length: int, has_taps: bool, second: str) -> bool:
@@ -87,11 +84,11 @@ def repr_region_ok(n_fft: int, hop_length: int, has_taps: bool, second: str) -> 
     region, Polar and Cartesian share one; each with taps and full-K."""
     r = table()["fuse_forward"]["repr_if" if second == "if" else "repr_phase_imag"]
     return _in_shape_region(r["taps" if has_taps else "fullk"], n_fft,
-                            kernel_route(n_fft, has_taps, smooth=False))
+                            kernel_route(n_fft, has_taps))
 
 
 def mfcc_region_ok(n_fft: int, hop_length: int) -> bool:
-    return _in_shape_region(table()["fuse_forward"]["mfcc"], n_fft, kernel_route(n_fft, True, smooth=True))
+    return _in_shape_region(table()["fuse_forward"]["mfcc"], n_fft, kernel_route(n_fft, True))
 
 
 def fit_fullk_max_n_fft() -> int:
@@ -100,12 +97,12 @@ def fit_fullk_max_n_fft() -> int:
 
 def fit_fullk_region_ok(n_fft: int, two_channel: bool = False) -> bool:
     """The one-pass fit of a window without taps up to its measured largest
-    n_fft, on the routes its family won: the magnitude's (F: ``"fft"``,
-    ``"smooth"``, ``"product"``) or, with ``two_channel``, the
-    representations' (H full-K: ``"fft"``, ``"product"``)."""
+    n_fft, on the routes its family won (``"fft"``, ``"smooth"``,
+    ``"product"``): the magnitude's (F) or, with ``two_channel``, the
+    representations' (H full-K)."""
     t = table()["fuse_fit"]
     routes = t["repr_fullk_routes" if two_channel else "melspec_fullk_routes"]
-    return (kernel_route(n_fft, False, smooth=not two_channel) in routes
+    return (kernel_route(n_fft, False) in routes
             and n_fft <= fit_fullk_max_n_fft())
 
 

@@ -17,9 +17,8 @@ measurement).  The parts:
   kHz made on the card from ``--seed``, at n_fft 128, 256, 512, 768, 896,
   1024, 2048 and 4096 with overlap 4, at 64 with overlap 2 (the kernels take
   a hop that is a multiple of 32 only) and at 1024 with overlap 2 and 8.
-  768 = 2^8 3 measures the smooth route of the log-mel and MFCC kernels (A,
-  E) and the factored and product routes of the representation kernels (G);
-  896 = 2^7 7 the factored and product routes of all.  The patterns:
+  768 = 2^8 3 measures the smooth route of every pattern's kernels (A, E,
+  G); 896 = 2^7 7 their factored and product routes.  The patterns:
   ``Mono + STFT(hann) + Magnitude(log1p, mel)`` (melspec_taps), ``Mono +
   DGT + Magnitude(log1p)`` (melspec_fullk), ``Mono + STFT | DGT + PolarIF``
   (repr_if taps / fullk), ``Mono + STFT | DGT + Polar`` (repr_phase_imag
@@ -44,9 +43,8 @@ measurement).  The parts:
 
 The derived table: a shape region per pattern (the measured power-of-two
 n_fft around 1024 where the kernel wins, and the routes it admits: ``fft``,
-``smooth`` where the pattern's kernel has that route and won at 768/192,
-``factored`` / ``product`` where it won at every point measuring that route,
-896/224 and for the representations 768/192 too); the full-K fit's largest
+``smooth`` where the pattern's kernel won at 768/192, ``factored`` /
+``product`` where it won at 896/224); the full-K fit's largest
 n_fft up to which both fits win at every measured power of two, and per fit
 the routes it admits by the same rule; per session mode the
 largest measured batch up
@@ -90,20 +88,18 @@ POW2 = {64: "64/32", 128: "128/32", 256: "256/64", 512: "512/128", 1024: "1024/2
 KINDS = ["melspec_taps", "melspec_fullk", "repr_if_taps", "repr_if_fullk", "repr_phase_taps",
          "repr_phase_fullk", "mfcc"]
 FIT_KINDS = ["fit_melspec_fullk", "fit_repr_if_fullk"]
-#: the points that measure each route off a power of two: the kernels of
-#: the log-mel and MFCC patterns (A, B, E, F) take the smooth route at 768
-#: (2^8 3) and their factored / product front end at 896 (2^7 7); those of
-#: the representations (G, H) have no smooth route, so both points measure
-#: their factored / product front end
+#: the points that measure each route off a power of two: every pattern's
+#: kernels (A, B, E, F, G, H) take the smooth route at 768 (2^8 3) and their
+#: factored / product front end at 896 (2^7 7)
 SMOOTH_POINTS = {"smooth": ["768/192"], "other": ["896/224"]}
-PLAIN_POINTS = {"other": ["768/192", "896/224"]}
 
 
 def route_points(kind: str) -> Dict[str, List[str]]:
     """Per route a pattern's kernel takes off a power of two (``smooth``,
     and ``other``: its factored or product front end), the shapes that
-    measure it."""
-    return SMOOTH_POINTS if kind.startswith(("melspec", "mfcc", "fit_melspec")) else PLAIN_POINTS
+    measure it: the same for every pattern (``kind``), each of whose kernels
+    has the smooth route."""
+    return SMOOTH_POINTS
 
 
 def other_route(kind: str) -> str:

@@ -65,12 +65,12 @@ have two routes, picked by n_fft alone: a shared-memory FFT
 (``csrc/fft_smem.cuh``: ``frames_rfft`` for the analyses, ``frames_irfft``
 for the syntheses of C, D, I, J, L, M, K, P, S and O) at a power of two
 from 64 to 4096, the window-folded products elsewhere (R, L, M, P, S,
-O's synthesis, E, F, J, C, D, I and K's synthesis take a third route, the
-mixed-radix FFT, at even 5-smooth n_fft); so do the log-mel
+O's synthesis, E, F, G, H, J, C, D, I and K's synthesis take a third route,
+the mixed-radix FFT, at even 5-smooth n_fft); so do the log-mel
 forward and fit (A and B: E's and F's FFT and smooth instances under the
 taps' own window, the factored front end elsewhere), the representations' forward
-and fit statistics with taps (G and H: G and H full-K's instances under the
-taps' own window), and O's polish
+and fit statistics with taps (G and H: G and H full-K's FFT and smooth
+instances under the taps' own window), and O's polish
 (``gl_polish_fft_kernel``: every projection of a chunk in one launch, where
 its block holds the grid, on the FFT or the smooth route; two launches a
 projection elsewhere).  Phases 3 and 4f
@@ -80,8 +80,8 @@ which come out bit-identical; A within 2e-5 and B and H with taps with their
 extrema bit-identical and sums within 1e-5, at every power of two from 64
 under hann, hamming and blackman) and against a float64 oracle at 1024, 512,
 2048 and 4096 (C, D, I, K, G, H, P, S and O's synthesis at every power of
-two from 64), the factored route at 768/192 (G, H) and 896/224 (A, B), and
-the product route at 768/256 (G, H), 896/224 (E, F, J, C, D, I, K),
+two from 64), the factored route at 896/224 (A, B, G, H), and
+the product route at 896/224 (E, F, G, H, J, C, D, I, K),
 8192/2048 (J) and 1344/336 (R, L, M, P, S, O's synthesis), and the smooth
 route of R, L, M, P, S, O's synthesis and O's polish (the mixed-radix FFT)
 at 1200/300, 960/240, 768/192, 400/100 and 1920/480, bit-identical to its
@@ -89,7 +89,10 @@ plain version, of E and F (A and B under hann and blackman taps) at
 768/256, 768/192, 640/160, 384/96, 1536/384, 1920/480 and 3072/768 (|X| and
 the extrema bit-identical, the mel product's and the sums' order aside), of
 J, C, D and I at those seven framings (bit-identical, D to four C, every
-frame of C, I and J within 1e-5 of the float64 oracle), and of K's
+frame of C, I and J within 1e-5 of the float64 oracle), of G and H full-K
+at those seven (within 1e-6 of the plain version, 1e-5 of the float64
+oracle; G and H with taps at 768/192 under hann, hamming and blackman), and
+of K's
 synthesis at those seven and 1200/300 (bit-identical, within 1e-5 of a
 float64 istft);
 the launch counters' route tally shows
@@ -106,9 +109,11 @@ Griffin-Lim inverts (C, D on the smooth, then the product route),
 STFT(768, 192) log-mel (A, B on the smooth route) and Polar chains' fit and
 forward, a DGT(768, 256) chain's fit and forward (E, F on the smooth
 route), ``pghi`` and ``pghi_gl`` (J on the smooth route), DGT(768, 256) +
-PolarIF's fit and forward, the STFT(896, 224) log-mel and DGT(896, 224)
-magnitude chains' fit and forward, and the latter's ``pghi_gl``: A, B
-factored and E, F, J on the product route, 896 = 2^7 7).  Phase
+PolarIF's fit and forward (G, H full-K on the smooth route; the Polar chain
+puts G and H with taps there), the STFT(896, 224) log-mel and Polar and the
+DGT(896, 224) magnitude and PolarIF chains' fit and forward, and the
+magnitude chain's ``pghi_gl``: A, B, G, H factored and E, F, G, H full-K, J
+on the product route, 896 = 2^7 7).  Phase
 6 runs the floor sweep of A's factored design
 (``acids_transforms_tpu_torch.tools.sweep_kernel_floor``: kernel T, A cut
 after each of its stages) at the main path's shape, prints each stage's
@@ -220,6 +225,66 @@ def smooth_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
             del y_pick
     finally:
         spectral._kernel_plan = rule
+    return out
+
+
+def repr_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
+    """G and H full-K (the DGT's gaussian window) on the smooth route at each
+    of PLAN_SWEEP_SHAPES under every plan the kernels take (frame tile 32,
+    16, 8, 4, 2 x 1, 2, 4, ... FFTs side by side, within the route's teams
+    and shared memory), with the IF and a mel bank (G's; H has none) and
+    with the angle and no bank, the card's time a call back to back
+    (device_ms); G's output must be bit-identical under every plan (the
+    frame pairs, the halo's included, do not depend on it).  Returns per
+    (shape, configuration) the rows, the rule's pick (spectral._repr_plan
+    of G, and of H) and the fastest plan of G + H."""
+    from acids_transforms_tpu_torch import transforms as T
+    from acids_transforms_tpu_torch.ops.cuda import frames_fft as ff, spectral
+    from acids_transforms_tpu_torch.ops.windows import gaussian_dgt_window
+
+    rule = spectral._repr_plan
+    out = {}
+    try:
+        for n_fft, hop in PLAN_SWEEP_SHAPES:
+            w = gaussian_dgt_window(n_fft, device=mono.device)
+            ov, F = n_fft // hop, n_fft // 2 + 1
+            bank = T.Magnitude(mode="bipolar", n_fft=n_fft).mel_bank
+            for second, mel in (("if", True), ("phase", False)):
+                kw = dict(mel_bank=bank if mel else None, weighted=second == "if", window=w)
+                pick = (rule(n_fft, hop, None, False, second, mel), rule(n_fft, hop, None, True, second, False))
+                y_pick = spectral.fused_spectral_repr(mono, n_fft, hop, second, **kw)
+                rows = []
+                for tile_t in spectral.FFT_TILES:
+                    teams = 1
+                    while teams <= ff.fft_smooth_max_teams(n_fft):
+                        g_b = spectral._repr_fft_smem_bytes(tile_t, hop, ov, F, teams, False, second, mel)
+                        h_b = spectral._repr_fft_smem_bytes(tile_t, hop, ov, F, teams, True, second, False)
+                        row = dict(tile=tile_t, teams=teams, g_ms=None, h_ms=None, g_kb=g_b / 1024.0,
+                                   h_kb=h_b / 1024.0)
+                        spectral._repr_plan = lambda *a, p=(tile_t, teams): p
+                        if g_b <= ff.MAX_SMEM:
+                            y = spectral.fused_spectral_repr(mono, n_fft, hop, second, **kw)
+                            require(torch.equal(y[0], y_pick[0]) and torch.equal(y[1], y_pick[1]),
+                                    f"G {n_fft}/{hop} {second}: plan {(tile_t, teams)} changes the output")
+                            row["g_ms"] = device_ms(
+                                lambda: spectral.fused_spectral_repr(mono, n_fft, hop, second, **kw), repeats)
+                        if h_b <= ff.MAX_SMEM:
+                            row["h_ms"] = device_ms(lambda: spectral.fused_repr_stats(
+                                mono, n_fft, hop, second, weighted=second == "if", window=w), repeats)
+                        spectral._repr_plan = rule
+                        if row["g_ms"] is not None or row["h_ms"] is not None:
+                            rows.append(row)
+                        teams *= 2
+                res = {}
+                for i, k in enumerate(("g_ms", "h_ms")):
+                    timed = [r for r in rows if r[k] is not None]
+                    best = min(timed, key=lambda r: r[k])
+                    mine = next(r[k] for r in timed if (r["tile"], r["teams"]) == pick[i])
+                    res[k[0]] = dict(pick=pick[i], best=(best["tile"], best["teams"]), over=mine / best[k] - 1.0)
+                out[f"{n_fft}/{hop} {second}{' mel' if mel else ''}"] = dict(rows=rows, **res)
+                del y_pick
+    finally:
+        spectral._repr_plan = rule
     return out
 
 
@@ -495,6 +560,19 @@ def melspec_smooth_resources(res: dict) -> dict:
     kFrontSmooth = 3, ``Li3E`` in the mangled name."""
     return {k: v for k, v in res.items()
             if ("melspec_forward_kernel" in k or "melspec_stats_kernel" in k) and "Li3E" in k}
+
+
+def repr_smooth_resources(res: dict) -> dict:
+    """The build log's resources of G's and H's smooth instances
+    (``repr_forward_kernel`` / ``repr_stats_kernel<kInt16, kFrontSmooth>``,
+    ``Li3E`` in the mangled name), by the labels ``G``, ``H`` (float32 rows)
+    and ``G int16``, ``H int16``."""
+    out = {}
+    for k, v in res.items():
+        for kern, label in (("repr_forward_kernel", "G"), ("repr_stats_kernel", "H")):
+            if kern in k and "Li3E" in k:
+                out[label + (" int16" if "ILb1ELi3E" in k else "")] = v
+    return out
 
 
 def gl_smooth_resources(res: dict) -> dict:
@@ -2305,30 +2383,65 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
                 ("fused_melspec:smooth", "fused_melspec_stats:smooth"))
     fit_forward("STFT(896, 224) log-mel chain (A, B factored)", stft_logmel(896, 224),
                 ("fused_melspec:factored", "fused_melspec_stats:factored"))
-    # H and G with taps on the factored route: STFT(768, 192) + Polar's fit
-    # and forward (G and H have no smooth route)
-    p_chain = T.Mono() + T.STFT(n_fft=768, hop_length=192) + T.Polar(
-        magnitude_args={"mode": "bipolar", "n_fft": 768})
-    zero()
-    p_fit = att.fuse_fit(p_chain, backend="kernel")(audio)
-    y_p = att.fuse_forward(p_fit, backend="kernel")(audio)
-    torch.cuda.synchronize()
-    got = {k: v for k, v in sp.routes.items() if v}
-    log(f"  STFT(768, 192) + Polar, fit + forward on {tuple(audio.shape)}: launches "
-        f"{ {k: v for k, v in sp.launches.items() if v} }, routes {got}")
-    require(got == {"fused_repr_stats:factored": 1, "fused_spectral_repr:factored": 1} and launched() == 2,
-            "STFT(768, 192) + Polar: H and G must launch once each on the factored route")
-    counts["fused_repr_stats:factored"] += 1
-    counts["fused_spectral_repr:factored"] += 1
-    e_fit = p_chain.fit(audio)
-    e_m = max(abs(getattr(p_fit[2].magnitude.norm, a).item() - getattr(e_fit[2].magnitude.norm, a).item())
-              for a in ("offset", "scale")) / abs(e_fit[2].magnitude.norm.scale.item())
-    e_y = rel_err(y_p[..., 0, :], p_fit.forward(audio)[..., 0, :])
-    log(f"    magnitude fit vs chain.fit {e_m:.3e} of the scale (tol 1e-05); channel 1 vs the eager chain rel "
-        f"{e_y:.3e} (tol 1e-04)")
-    require(torch.isfinite(y_p).all().item() and e_m <= 1e-5 and e_y <= 1e-4,
-            "STFT(768, 192) + Polar: the factored route differs from the eager chain")
-    del y_p
+    # G and H through the entry points: STFT + Polar (taps) and DGT +
+    # PolarIF (full-K), fit and forward, at 768 (the smooth route) and at 896
+    # (2^7 7: the factored and the product route), each against the eager
+    # chain, one launch each of H and G; the fit + forward's time (one call
+    # alone, host clock to the card's end, median of 3) on its route and, at
+    # 768, in turns with the route 768 ran before (old, new, new, old)
+    def repr_chain(label, chain, want, old):
+        zero()
+        fitted = att.fuse_fit(chain, backend="kernel")(audio)
+        y = att.fuse_forward(fitted, backend="kernel")(audio)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in sp.routes.items() if v}
+        log(f"  {label}, fit + forward on {tuple(audio.shape)}: launches "
+            f"{ {k: v for k, v in sp.launches.items() if v} }, routes {got}")
+        require(got == {k: 1 for k in want} and launched() == 2, f"{label}: H and G must launch once each on {want}")
+        for k, v in got.items():
+            counts[k] += v
+        e_fit = chain.fit(audio)
+        e_m = max(abs(getattr(fitted[2].magnitude.norm, a).item() - getattr(e_fit[2].magnitude.norm, a).item())
+                  for a in ("offset", "scale")) / abs(e_fit[2].magnitude.norm.scale.item())
+        e_y = rel_err(y[..., 0, :], fitted.forward(audio)[..., 0, :])
+        log(f"    magnitude fit vs chain.fit {e_m:.3e} of the scale (tol 1e-05); channel 1 vs the eager chain rel "
+            f"{e_y:.3e} (tol 1e-04)")
+        require(torch.isfinite(y).all().item() and e_m <= 1e-5 and e_y <= 1e-4,
+                f"{label}: the kernels' fit or forward differs from the eager chain")
+        del y
+
+        def fit_fwd():
+            return att.fuse_forward(att.fuse_fit(chain, backend="kernel")(audio), backend="kernel")(audio)
+
+        plan = sp._repr_plan
+
+        def on_old(fn):
+            sp._repr_plan = lambda n_fft, hop, taps, *a: (sp._repr_kernel_tile(n_fft, hop, taps), 0)
+            try:
+                return fn()
+            finally:
+                sp._repr_plan = plan
+
+        if old is None:
+            log(f"    fit + forward {time_ms(fit_fwd, 3):.3f} ms (one call alone, host clock to the card's end)")
+            return
+        turns = [on_old(lambda: time_ms(fit_fwd, 3)), time_ms(fit_fwd, 3), time_ms(fit_fwd, 3),
+                 on_old(lambda: time_ms(fit_fwd, 3))]
+        log(f"    fit + forward, one call alone (host clock to the card's end, median of 3), in turns {old} route "
+            f"(the route this shape took before), smooth, smooth, {old}: {' / '.join(f'{t:.3f}' for t in turns)} ms")
+
+    repr_chain("STFT(768, 192) + Polar (G, H smooth)", T.Mono() + T.STFT(n_fft=768, hop_length=192) + T.Polar(
+        magnitude_args={"mode": "bipolar", "n_fft": 768}), ("fused_repr_stats:smooth", "fused_spectral_repr:smooth"),
+        "factored")
+    repr_chain("STFT(896, 224) + Polar (G, H factored)", T.Mono() + T.STFT(n_fft=896, hop_length=224) + T.Polar(
+        magnitude_args={"mode": "bipolar", "n_fft": 896}), ("fused_repr_stats:factored", "fused_spectral_repr:factored"),
+        None)
+    repr_chain("DGT(768, 256) + PolarIF (G, H full-K smooth)", T.Mono() + T.DGT(n_fft=768, hop_length=256) + T.PolarIF(
+        magnitude_args={"mode": "bipolar", "n_fft": 768}),
+        ("fused_repr_stats_fullk:smooth", "fused_spectral_repr_fullk:smooth"), "product")
+    repr_chain("DGT(896, 224) + PolarIF (G, H full-K product)", T.Mono() + T.DGT(n_fft=896, hop_length=224)
+               + T.PolarIF(magnitude_args={"mode": "bipolar", "n_fft": 896}),
+               ("fused_repr_stats_fullk:product", "fused_spectral_repr_fullk:product"), None)
     # J through that chain's pghi_gl inversion, converging like the eager
     # loop from the same seed: the smooth route at 768/256 (2^8 3), the
     # product route at 896/224 (2^7 7)
@@ -2388,29 +2501,6 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
 
     pghi_invert(d_fit, y_k, dgt, target, conv, 768, 256, "smooth")
     pghi_invert(d_fit_y, y_y, dgt_y, target_y, conv_y, 896, 224, "product")
-    # G and H full-K on the product route: DGT(768, 256) + PolarIF, fit and
-    # forward through the entry points, against the eager chain
-    r_chain = T.Mono() + T.DGT(n_fft=768, hop_length=256) + T.PolarIF(
-        magnitude_args={"mode": "bipolar", "n_fft": 768})
-    zero()
-    r_fit = att.fuse_fit(r_chain, backend="kernel")(audio)
-    y_r = att.fuse_forward(r_fit, backend="kernel")(audio)
-    torch.cuda.synchronize()
-    got = {k: v for k, v in sp.routes.items() if v}
-    log(f"  DGT(768, 256) + PolarIF, fit + forward on {tuple(audio.shape)}: launches "
-        f"{ {k: v for k, v in sp.launches.items() if v} }, routes {got}")
-    require(got == {"fused_repr_stats_fullk:product": 1, "fused_spectral_repr_fullk:product": 1}
-            and launched() == 2, "DGT(768, 256) + PolarIF: H and G must launch once each on the product route")
-    for k, v in got.items():
-        counts[k] += v
-    e_fit = r_chain.fit(audio)
-    e_m = max(abs(getattr(r_fit[2].magnitude.norm, a).item() - getattr(e_fit[2].magnitude.norm, a).item())
-              for a in ("offset", "scale")) / abs(e_fit[2].magnitude.norm.scale.item())
-    e_y = rel_err(y_r[..., 0, :], r_fit.forward(audio)[..., 0, :])
-    log(f"    magnitude fit vs chain.fit {e_m:.3e} of the scale (tol 1e-05); channel 1 vs the eager chain rel "
-        f"{e_y:.3e} (tol 1e-04)")
-    require(torch.isfinite(y_r).all().item() and e_m <= 1e-5 and e_y <= 1e-4,
-            "DGT(768, 256) + PolarIF: the product route differs from the eager chain")
     log(f"  phase 4h {time.perf_counter() - t_start:.1f} s")
 
 
@@ -2691,7 +2781,8 @@ def sinebank_regions_phase(dev, audio, mono, stream, wrappers):
               ("4h STFT(768, 192) + Polar", "phase", 768, 192, True), ("4h DGT(768, 256)", "melspec", 768, 256, False),
               ("4h DGT(768, 256) + PolarIF", "if", 768, 256, False),
               ("4h STFT(896, 224) log-mel", "melspec", 896, 224, True),
-              ("4h DGT(896, 224)", "melspec", 896, 224, False)]
+              ("4h DGT(896, 224)", "melspec", 896, 224, False), ("4h STFT(896, 224) + Polar", "phase", 896, 224, True),
+              ("4h DGT(896, 224) + PolarIF", "if", 896, 224, False)]
     main_ok = True
     for label, kind, n_fft, hop, taps in shapes:
         if kind == "melspec":
@@ -3585,6 +3676,15 @@ def main() -> int:
     require(len(smooth_res) == 6 and all(r["registers"] <= 128 and not r.get("spill_stores") and not r.get("spill_loads")
                                          for r in smooth_res.values()),
             "the melspec smooth instances: six, at most 128 registers, no spill")
+    # G's and H's smooth instances: at most 128 registers (two blocks an SM);
+    # their spill reported (the FFT instance of G spills 4 B)
+    repr_res = repr_smooth_resources(_build.kernel_resources())
+    for name, res in repr_res.items():
+        log(f"    {name} smooth instance: {res['registers']} registers, spill stores / loads "
+            f"{res.get('spill_stores', 0)} / {res.get('spill_loads', 0)} B (the representations' smooth route)")
+    require(set(repr_res) == {"G", "H", "G int16", "H int16"} and all(r["registers"] <= 128
+                                                                       for r in repr_res.values()),
+            f"the representations' smooth instances: four, at most 128 registers (found {sorted(repr_res)})")
     for tile_t in spectral.TILES:
         require(
             lib.att_melspec_smem_bytes(tile_t, HOP, N_FFT // HOP, N_FFT // 2 + 1)
@@ -3697,10 +3797,30 @@ def main() -> int:
                             "source disagree")
             require(spectral._fft_smem_bytes(tile_t, hop_s, ov_s, f_s, teams) <= ff.MAX_SMEM,
                     f"{n_fft_s}/{hop_s}: the smooth plan exceeds shared memory")
+            # G and H (full-K and with taps) on the smooth route at the same
+            # shapes: every plan on it, each layout at the plan's team count
+            for st in (0, 1):
+                for second, sel in spectral.SECONDS.items():
+                    for mel in ((0,) if st else (0, 1)):
+                        tile_r, teams_r = spectral._repr_plan(n_fft_s, hop_s, None, bool(st), second, bool(mel))
+                        require(teams_r > 0 and spectral._repr_plan(n_fft_s, hop_s, (0.5, -0.25), bool(st), second,
+                                                                    bool(mel)) == (tile_r, teams_r),
+                                f"{n_fft_s}/{hop_s}: G and H must take the smooth route")
+                        for t_s in spectral.FFT_TILES:
+                            for tm in sorted({1, teams_r}):
+                                require(lib.att_repr_fft_smem_bytes(t_s, hop_s, ov_s, f_s, tm, st, sel, mel)
+                                        == spectral._repr_fft_smem_bytes(t_s, hop_s, ov_s, f_s, tm, bool(st),
+                                                                         second, bool(mel)),
+                                        f"{n_fft_s}/{hop_s}: the representations' smooth shared-memory size: "
+                                        "wrapper and source disagree")
             n_smooth += 1
-    log(f"    the melspec smooth route: plans and shared-memory sizes agree at {n_smooth} shapes (768/256 "
-        f"{spectral._kernel_plan(768, 256, None)}, 768/192 {spectral._kernel_plan(768, 192, None)}, 1920/480 "
-        f"{spectral._kernel_plan(1920, 480, None)} as (frame tile, FFTs side by side))")
+    log(f"    the melspec and representation smooth route: plans and shared-memory sizes agree at {n_smooth} shapes "
+        f"(768/256 {spectral._kernel_plan(768, 256, None)}, 768/192 {spectral._kernel_plan(768, 192, None)}, "
+        f"1920/480 {spectral._kernel_plan(1920, 480, None)} as (frame tile, FFTs side by side); G / H full-K with "
+        f"the IF and a mel bank at 768/256 {spectral._repr_plan(768, 256, None, False, 'if', True)} / "
+        f"{spectral._repr_plan(768, 256, None, True, 'if', False)}, G / H Polar with taps at 768/192 "
+        f"{spectral._repr_plan(768, 192, (0.5, -0.25), False, 'phase', True)} / "
+        f"{spectral._repr_plan(768, 192, (0.5, -0.25), True, 'phase', False)})")
     # C / D / I and J on the smooth route: every shape their gates take (hop
     # a multiple of 32, overlap 2 to 8) takes it (no smooth shape falls back
     # to the product), the plans' layouts at their team counts and one team;
@@ -4226,21 +4346,31 @@ def main() -> int:
         k = torch.arange(n_fft, device=dev, dtype=torch.float64)
         return sum((1.0 if p == 0 else 2.0) * c * torch.cos(2 * math.pi * p * k / n_fft) for p, c in enumerate(taps))
 
+    def repr_route(n_fft, taps):
+        """The route of G and H at n_fft (spectral.melspec_route's rule) and
+        the suffix of its rows' keys."""
+        route = spectral.melspec_route(n_fft)
+        if route == "other":
+            route = "factored" if taps is not None else "product"
+        return route, {"fft": "", "smooth": "_smooth", "factored": "_factored", "product": "_product"}[route]
+
     def check_repr(name, x, n_fft, hop, wname, second, bank, weighted=False, taps=None):
         """G (with taps: the FFT route under the taps' own window wherever
-        n_fft is a power of two from 64 to 4096; the factored
-        front end elsewhere, row G_factored) or G full-K against its plain
-        version; with taps on the FFT route also against the float64 oracle
-        (torch.stft under the cosine-sum window in float64): channel 1 and
-        the |X|-weighted angle (or the IF's phase steps) within 1e-4, the
-        JAX package's budget."""
+        n_fft is a power of two from 64 to 4096, the smooth route where it is
+        even and 5-smooth, row G_smooth; the factored front end elsewhere,
+        row G_factored) or G full-K against its plain version; with taps on
+        the FFT or smooth route also against the float64 oracle (torch.stft
+        under the cosine-sum window in float64): channel 1 and the
+        |X|-weighted angle (or the IF's phase steps) within 1e-4, the JAX
+        package's budget."""
         _, taps_w, window = front_end(wname, n_fft)
         taps = taps_w if taps is None else taps
-        fft = spectral._repr_plan(n_fft, hop, taps, False, second, bank is not None and second != "imag")[1] > 0
-        if taps is not None:
-            key = "G" if fft else "G_factored"
-        else:
-            key = "G_fk" if fft else "G_fk_product"
+        route, suffix = repr_route(n_fft, taps)
+        fft = route in ("fft", "smooth")
+        require(fft == (spectral._repr_plan(n_fft, hop, taps, False, second,
+                                            bank is not None and second != "imag")[1] > 0),
+                f"G {name}: the plan does not follow the route rule")
+        key = ("G" if taps is not None else "G_fk") + suffix
         spectral.reset_launches()
         # the IF is held before a channel-2 offset: the output's float32
         # resolution, divided by the parabolic window near its zeros, would
@@ -4248,9 +4378,8 @@ def main() -> int:
         aff = (0.0123, 2.345, 0.0 if second == "if" else -0.05, 1.3)
         kw = dict(mel_bank=bank, aff=aff, weighted=weighted, taps=taps, window=window)
         k1, k2 = spectral.fused_spectral_repr(x, n_fft, hop, second, **kw)
-        route = "fused_spectral_repr" + ("" if taps is not None else "_fullk") + (
-            ":fft" if fft else ":factored" if taps is not None else ":product")
-        require(spectral.routes[route] == 1 and fft == ff.fft_covers(n_fft), f"{key} {name}: not on {route}")
+        route = "fused_spectral_repr" + ("" if taps is not None else "_fullk") + ":" + route
+        require(spectral.routes[route] == 1, f"{key} {name}: not on {route}")
         p1, p2 = spectral.fused_spectral_repr_reference(x, n_fft, hop, second, **kw)
         torch.cuda.synchronize()
         label = f"{key} {name} {second}{' weighted' if weighted else ''}{'' if bank is None else ' mel'}"
@@ -4299,24 +4428,24 @@ def main() -> int:
     # as B and F, channel 2 within the elementwise difference of the two
     # versions' channels (a bin at the +-pi boundary may land on either side).
     # H with taps takes the FFT route wherever n_fft is a power of two from
-    # 64 to 4096 (H full-K's instance under the taps' own window: G's
-    # channels are then those of G full-K under that window, and the extrema
-    # are bit-identical to the plain version's), the factored front end
-    # elsewhere (row H_factored)
+    # 64 to 4096 and the smooth route where it is even and 5-smooth (H
+    # full-K's instance under the taps' own window: G's channels are then
+    # those of G full-K under that window, and the extrema are bit-identical
+    # to the plain version's), the factored front end elsewhere (row
+    # H_factored)
     def check_repr_stats(name, x, n_fft, hop, wname, second, weighted=False, taps=None):
         _, taps_w, window = front_end(wname, n_fft)
         taps = taps_w if taps is None else taps
-        fft = spectral._repr_plan(n_fft, hop, taps, True, second, False)[1] > 0
-        if taps is not None:
-            key = "H" if fft else "H_factored"
-        else:
-            key = "H_fk" if fft else "H_fk_product"
+        route, suffix = repr_route(n_fft, taps)
+        fft = route in ("fft", "smooth")
+        require(fft == (spectral._repr_plan(n_fft, hop, taps, True, second, False)[1] > 0),
+                f"H {name}: the plan does not follow the route rule")
+        key = ("H" if taps is not None else "H_fk") + suffix
         kw = dict(weighted=weighted, taps=taps, window=window)
         spectral.reset_launches()
         s_k = spectral.fused_repr_stats(x, n_fft, hop, second, **kw)
-        route = "fused_repr_stats" + ("" if taps is not None else "_fullk") + (
-            ":fft" if fft else ":factored" if taps is not None else ":product")
-        require(spectral.routes[route] == 1 and fft == ff.fft_covers(n_fft), f"{key} {name}: not on {route}")
+        route = "fused_repr_stats" + ("" if taps is not None else "_fullk") + ":" + route
+        require(spectral.routes[route] == 1, f"{key} {name}: not on {route}")
         s_p = spectral.fused_repr_stats_reference(x, n_fft, hop, second, **kw)
         kw_g = kw
         if taps is not None and fft:
@@ -4328,9 +4457,9 @@ def main() -> int:
         if fft:
             same = all(s_k[ch][k].item() == s_p[ch][k].item() for ch in ("ch1", "ch2") for k in ("min", "max"))
             tile = spectral._repr_plan(n_fft, hop, taps, True, second, False)[0]
-            log(f"  {key} {name} {second} (FFT route, tile {tile}): extrema "
+            log(f"  {key} {name} {second} ({route}, tile {tile}): extrema "
                 f"bit-identical to the plain version: {same}")
-            require(same, f"{key} {name}: the FFT route's extrema differ from the plain version's")
+            require(same, f"{key} {name}: the {route} extrema differ from the plain version's")
         worst = 0.0
         for i, ch in enumerate(("ch1", "ch2")):
             v, vp = g_k[i].double(), g_p[i].double()
@@ -4377,11 +4506,11 @@ def main() -> int:
             check_repr(f"{n_fft}/{hop}", rag, n_fft, hop, wname, "if", bank_s)
             check_repr_stats(f"{n_fft}/{hop}", rag, n_fft, hop, wname, "phase")
 
-    # A, B and H on the FFT route at every power of two they take (hop
+    # A, B, G and H on the FFT route at every power of two they take (hop
     # n_fft / 4, at least the kernels' 32) under hann, hamming and blackman
     # taps (A with the flagship's bank, its bf16 store and int16 input, and
-    # the power spectrogram; H with each second), and on the factored route
-    # at 768/192 (n_fft no power of two).  The taps are given: the port reads
+    # the power spectrogram; G and H with each second), and on the smooth
+    # route at 768/192 (2^8 3; rows A_smooth, B_smooth, G_smooth, H_smooth).  The taps are given: the port reads
     # no taps off a 64-point blackman window, whose chains run eager
     for n_fft in (64, 128, 256, 512, 1024, 2048, 4096, 768):
         hop_s = max(32, n_fft // 4)
@@ -4400,20 +4529,21 @@ def main() -> int:
                       contrast="none", taps=(0.5, -0.25))
 
     # G and H full-K by route.  The FFT route at every power of two it takes
-    # (hop n_fft / 4; 1024/128 for overlap 8), Polar, weighted PolarIF and
-    # Cartesian without mel, contrast or affine, against the plain version:
-    # both channels within 1e-6 of their largest value (the plain version
-    # repeats the kernel's float32 operations in order and atan2f is torch's
-    # atan2 on the card: measured bit-identical), against the float64 oracle
-    # (torch.stft in float64): |X| and Re / Im within 1e-5 of the largest
-    # value, the angle (or the IF's phase steps) weighted by |X| / max|X|
-    # within 1e-5; the launches on the route; H as above.  The product route
-    # (n_fft no power of two) at 768/256 as check_repr / check_repr_stats
-    # hold it.
+    # (hop n_fft / 4; 1024/128 for overlap 8) and the smooth route at every
+    # SMOOTH_SHAPES framing (even 5-smooth n_fft), Polar, weighted PolarIF
+    # and Cartesian without mel, contrast or affine, against the plain
+    # version: both channels within 1e-6 of their largest value (the plain
+    # version repeats the kernel's float32 operations in order and atan2f is
+    # torch's atan2 on the card: measured bit-identical on the FFT route),
+    # against the float64 oracle (torch.stft in float64): |X| and Re / Im
+    # within 1e-5 of the largest value, the angle (or the IF's phase steps)
+    # weighted by |X| / max|X| within 1e-5; the launches on the route; H as
+    # above.  The product route (n_fft 896 = 2^7 7) and the factored one
+    # (hann taps) at 896/224 as check_repr / check_repr_stats hold them.
     def check_repr_route(name, x, n_fft, hop):
         w = gaussian_dgt_window(n_fft, device=dev)
-        require(ff.fft_covers(n_fft), f"G / H full-K {name}: the FFT route's shape")
-        route = "fft"
+        route = spectral.melspec_route(n_fft)
+        require(route in ("fft", "smooth"), f"G / H full-K {name}: no FFT or smooth route's shape")
         S = torch.stft(x.double(), n_fft, hop, window=w.double(), center=True, pad_mode="reflect",
                        return_complex=True).transpose(-2, -1)
         for second, weighted in (("phase", False), ("if", True), ("imag", False)):
@@ -4451,7 +4581,8 @@ def main() -> int:
                 f"(tol 1e-05)")
             require(all(torch.isfinite(t).all().item() for t in (k1, k2)), f"G full-K {name}: not finite")
             require(e1 <= 1e-6 and e2 <= 1e-6 and e_o <= 1e-5, f"G full-K {name} {second} out of budget")
-            errs["G_fk"] = max(errs.get("G_fk", 0.0), abs_err(k1, p1))
+            key = "G_fk" if route == "fft" else "G_fk_smooth"
+            errs[key] = max(errs.get(key, 0.0), abs_err(k1, p1))
             check_repr_stats(name, x, n_fft, hop, "gaussian", second, weighted)
             del k1, k2, p1, p2
         del S
@@ -4461,16 +4592,23 @@ def main() -> int:
         check_repr_route(f"{n_fft}/{hop_s}", rag, n_fft, hop_s)
     check_repr_route("1024/128", rag, 1024, 128)
     check_repr_route("main shape, 16 clips", mono[:16], N_FFT, HOP)
-    # the product route: n_fft 768 is no power of two
-    bank_p = T.Magnitude(mode="bipolar", n_fft=768).mel_bank
+    for n_fft, hop in SMOOTH_SHAPES:
+        check_repr_route(f"{n_fft}/{hop}", rag, n_fft, hop)
+    # G and H on the smooth route with the mel bank and the affine (full-K
+    # at 768/256, hann taps at 768/192: the chains' configurations)
+    for n_fft, hop, wname in ((768, 256, "gaussian"), (768, 192, "hann")):
+        bank_s = T.Magnitude(mode="bipolar", n_fft=n_fft).mel_bank
+        check_repr(f"{n_fft}/{hop}", rag, n_fft, hop, wname, "if", bank_s, True)
+        check_repr(f"{n_fft}/{hop}", rag, n_fft, hop, wname, "phase", bank_s)
+    # the product route and the factored one (hann taps): n_fft 896 = 2^7 7
+    bank_p = T.Magnitude(mode="bipolar", n_fft=896).mel_bank
     for second, weighted in (("phase", False), ("if", True), ("imag", False)):
-        spectral.reset_launches()
-        check_repr("768/256", rag, 768, 256, "gaussian", second, None if second == "imag" else bank_p, weighted)
-        check_repr_stats("768/256", rag, 768, 256, "gaussian", second, weighted)
-        require(spectral.routes["fused_spectral_repr_fullk:product"] >= 1
-                and spectral.routes["fused_repr_stats_fullk:product"] >= 1
-                and not spectral.routes["fused_spectral_repr_fullk:fft"]
-                and not spectral.routes["fused_repr_stats_fullk:fft"], "G / H full-K at 768/256: not on the product route")
+        for wname, fk in (("gaussian", "_fullk:product"), ("hann", ":factored")):
+            check_repr("896/224", rag, 896, 224, wname, second, None if second == "imag" else bank_p, weighted)
+            check_repr_stats("896/224", rag, 896, 224, wname, second, weighted)
+            require(spectral.routes["fused_spectral_repr" + fk] >= 1 and spectral.routes["fused_repr_stats" + fk] >= 1
+                    and not any(spectral.routes[k] for k in spectral.routes if k.endswith((":fft", ":smooth"))),
+                    f"G / H {wname} at 896/224: not on the {fk[fk.index(':') + 1:]} route")
     spectral.reset_launches()
     torch.cuda.empty_cache()
 
@@ -4985,8 +5123,8 @@ def main() -> int:
     counts.update({k: p_counts[k] for k in ("fused_repr_stats", "fused_spectral_repr")})
     counts["fused_repr_stats:fft"] = spectral.routes["fused_repr_stats:fft"]
     counts["fused_spectral_repr:fft"] = spectral.routes["fused_spectral_repr:fft"]
-    counts["fused_repr_stats:factored"] = 0      # the factored route's launches: phase 4h
-    counts["fused_spectral_repr:factored"] = 0
+    for k in ("fused_repr_stats", "fused_spectral_repr"):
+        counts[k + ":smooth"] = counts[k + ":factored"] = 0    # the smooth and factored routes': phase 4h
     y_pb = att.fuse_forward(p_fit, out_dtype=torch.bfloat16)(audio)
     require(torch.equal(y_pb, y_p.to(torch.bfloat16)), "STFT + Polar: the bf16 forward is not the rounded f32")
     log("  the bf16 forward bit-equal to the rounded float32 one")
@@ -5223,8 +5361,6 @@ def main() -> int:
                                    return_complex=True).abs())
         return v.sum(), (v * v).sum(), v.min(), v.max()
 
-    factored_g = (4.0 * B * (Tg + ov_g - 1) * hop_g * Fg + 8.0 * el_g * ov_g
-                  + 4.0 * el_g * (2 * len(taps_g) - 1))        # the factored design's front end at 768/192 (G, H)
     factored_y = (4.0 * B * (Ty + ov_y - 1) * hop_y * Fy + 8.0 * el_y * ov_y
                   + 4.0 * el_y * (2 * len(taps_y) - 1))        # the factored design's front end at 896/224
     smooth_fwd, smooth_stats = melspec_smooth_instance(_build.kernel_resources())
@@ -5396,14 +5532,13 @@ def main() -> int:
     kw_e = dict(mel_bank=None, offset=dgt_fit[2].norm.offset, scale=dgt_fit[2].norm.scale,
                 contrast="log1p", taps=None, window=dgt_f.window)
     e_need = fft_flops + B * Tn * (N_FFT + 7.0 * F)
-    n_fft_p, hop_p = 768, 256      # E, F, J smooth; G, H full-K and K's synthesis product
+    n_fft_p, hop_p = 768, 256      # E, F, J, G and H full-K and K's synthesis smooth
     Tp, Fp = 1 + L // hop_p, n_fft_p // 2 + 1
     w_p = gaussian_dgt_window(n_fft_p, device=dev)
     kw_p = dict(kw_e, window=w_p)
     fft_p = 2.5 * n_fft_p * math.log2(n_fft_p) * B * Tp
     el_p = float(B * Tp * Fp)
     e_need_p = fft_p + B * Tp * (n_fft_p + 7.0 * Fp)
-    fullk_p = 4.0 * B * Tp * n_fft_p * Fp                    # cos and sin products of every frame
 
     def lib_dgt_spec_p(x):
         return torch.stft(x, n_fft_p, hop_p, window=w_p, center=True, pad_mode="reflect",
@@ -5686,8 +5821,10 @@ def main() -> int:
     # that a second kernel reads back (not the function's bytes: their
     # traffic at the peak rate is modelled and printed in the log line, kept
     # out of the row).  G and H with taps take the same route (Polar: no
-    # halo).  Their product rows at 768/256 on the same clips (phase 4h's
-    # launches), G's and H's factored rows at 768/192.
+    # halo).  Their smooth rows on the same clips (phase 4h's launches): full-K
+    # at 768/256 (PolarIF, the DGT's gaussian), with hann taps at 768/192
+    # (Polar), the same with smooth_design_flops at their plans' tiles; their
+    # product and factored rows at 896/224 (2^7 7).
     g_tile, _ = spectral._repr_plan(N_FFT, HOP, None, False, "if", True)
     g_frames = B * -(-Tn // g_tile) * (g_tile + 2)
 
@@ -5707,12 +5844,45 @@ def main() -> int:
         return lib_repr_stats(torch.stft(mono, n_fft_g, hop_g, window=w_g, center=True, pad_mode="reflect",
                                          return_complex=True).transpose(-2, -1), "phase")
 
-    # G's factored route at 768/192 (phase 4h's STFT(768, 192) + Polar
+    # G's smooth route at 768/192 (phase 4h's STFT(768, 192) + Polar
     # forward), with the square bipolar bank of that size and Polar's affine
     bank_gg = T.Magnitude(mode="bipolar", contrast="log1p", mel=True, n_fft=n_fft_g).mel_bank
     nnz_gg = int((bank_gg != 0).sum().item())
     kw_gg = dict(kw_g, mel_bank=bank_gg, taps=taps_g)
     g_need_g = fft_g + B * Tg * (n_fft_g + 7.0 * Fg + 2.0 * nnz_gg + 22.0 * Fg)
+    repr_res = repr_smooth_resources(_build.kernel_resources())
+
+    def blocks_of(n_fft, hop, T_, taps, stats, second, mel):
+        """(tile_t, blocks) of G's or H's plan at this shape."""
+        tile = spectral._repr_plan(n_fft, hop, taps, stats, second, mel)[0]
+        return tile, B * -(-T_ // tile)
+
+    _, hs_blocks = blocks_of(n_fft_g, hop_g, Tg, taps_g, True, "phase", False)
+    gks_tile, gks_blocks = blocks_of(n_fft_p, hop_p, Tp, None, False, "if", True)
+    hks_tile, hks_blocks = blocks_of(n_fft_p, hop_p, Tp, None, True, "if", False)
+    # G's and H's factored rows and their full-K product rows at 896/224
+    # (phase 4h's STFT(896, 224) + Polar and DGT(896, 224) + PolarIF)
+    bank_gy = T.Magnitude(mode="bipolar", contrast="log1p", mel=True, n_fft=n_fft_y).mel_bank
+    nnz_gy = int((bank_gy != 0).sum().item())
+    kw_gy = dict(kw_g, mel_bank=bank_gy, taps=taps_y)
+    kw_gky = dict(kw_gk, mel_bank=bank_gy, window=w_yd)
+    g_need_y = fft_y + B * Ty * (n_fft_y + 7.0 * Fy + 2.0 * nnz_gy + 22.0 * Fy)
+    gif_need_y = g_need_y + 8.0 * el_y
+    hif_need_y = fft_y + B * Ty * (n_fft_y + 5.0 * Fy + 20.0 * Fy + 16.0 * Fy) + 8.0 * el_y
+
+    def stft_y(w):
+        return torch.stft(mono, n_fft_y, hop_y, window=w, center=True, pad_mode="reflect",
+                          return_complex=True).transpose(-2, -1)
+
+    def lib_polar_y():
+        S = stft_y(w_y)
+        y1 = (torch.log1p(torch.matmul(S.abs(), bank_gy)) - aff_p[0]) / aff_p[1]
+        return y1, (torch.angle(S) - aff_p[2]) / aff_p[3]
+
+    def lib_polarif_y():
+        S = stft_y(w_yd)
+        y1 = (torch.log1p(torch.matmul(S.abs(), bank_gy)) - aff_r[0]) / aff_r[1]
+        return y1, (lib_if(S) - aff_r[2]) / aff_r[3]
 
     def lib_polar_g():
         S = torch.stft(mono, n_fft_g, hop_g, window=w_g, center=True, pad_mode="reflect",
@@ -5813,13 +5983,21 @@ def main() -> int:
              plain=lambda: spectral.fused_spectral_repr_reference(mono, N_FFT, HOP, "phase", **kw_g),
              library=lib_polar, bound=bound_of(4.0 * B * L + 8.0 * n_el, g_need),
              ceiling=ceiling_of(fft_design_flops(N_FFT, B * Tn) + 2.0 * B * Tn * nnz_r + 30.0 * n_el)),
-        dict(key="G_factored", name="fused_spectral_repr_factored", source=spectral_src,
-             replaces="acids_transforms_tpu/ops/pallas/spectral.py:869", front_end="factored",
-             launches=counts["fused_spectral_repr:factored"],
+        dict(key="G_smooth", name="fused_spectral_repr_smooth", source=spectral_src + " (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:869", front_end="smooth",
+             launches=counts["fused_spectral_repr:smooth"],
              run=lambda: spectral.fused_spectral_repr(mono, n_fft_g, hop_g, "phase", **kw_gg),
              plain=lambda: spectral.fused_spectral_repr_reference(mono, n_fft_g, hop_g, "phase", **kw_gg),
              library=lib_polar_g, bound=bound_of(4.0 * B * L + 8.0 * el_g, g_need_g),
-             ceiling=ceiling_of(factored_g + 2.0 * B * Tg * nnz_gg + 30.0 * el_g)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_g, B * Tg) + 2.0 * B * Tg * nnz_gg + 30.0 * el_g),
+             resources=repr_res["G"]),
+        dict(key="G_factored", name="fused_spectral_repr_factored", source=spectral_src,
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:869", front_end="factored",
+             launches=counts["fused_spectral_repr:factored"],
+             run=lambda: spectral.fused_spectral_repr(mono, n_fft_y, hop_y, "phase", **kw_gy),
+             plain=lambda: spectral.fused_spectral_repr_reference(mono, n_fft_y, hop_y, "phase", **kw_gy),
+             library=lib_polar_y, bound=bound_of(4.0 * B * L + 8.0 * el_y, g_need_y),
+             ceiling=ceiling_of(factored_y + 2.0 * B * Ty * nnz_gy + 30.0 * el_y)),
         dict(key="G_fk", name="fused_spectral_repr_fullk", source=spectral_src + " (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:851", front_end="fft",
              launches=counts["fused_spectral_repr_fullk:fft"],
@@ -5827,13 +6005,22 @@ def main() -> int:
              plain=lambda: spectral.fused_spectral_repr_reference(mono, N_FFT, HOP, "if", **kw_gk),
              library=lib_polarif, bound=bound_of(4.0 * B * L + 8.0 * n_el, gif_need),
              ceiling=ceiling_of(fft_design_flops(N_FFT, g_frames) + 2.0 * B * Tn * nnz_r + 38.0 * n_el)),
-        dict(key="G_fk_product", name="fused_spectral_repr_fullk_product", source=spectral_src,
-             replaces="acids_transforms_tpu/ops/pallas/spectral.py:851", front_end="product",
-             launches=counts["fused_spectral_repr_fullk:product"],
+        dict(key="G_fk_smooth", name="fused_spectral_repr_fullk_smooth",
+             source=spectral_src + " (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:851", front_end="smooth",
+             launches=counts["fused_spectral_repr_fullk:smooth"],
              run=lambda: spectral.fused_spectral_repr(mono, n_fft_p, hop_p, "if", **kw_gkp),
              plain=lambda: spectral.fused_spectral_repr_reference(mono, n_fft_p, hop_p, "if", **kw_gkp),
              library=lib_polarif_p, bound=bound_of(4.0 * B * L + 8.0 * el_p, gif_need_p),
-             ceiling=ceiling_of(fullk_p * (Tp + 1) / Tp + 2.0 * B * Tp * nnz_rp + 38.0 * el_p)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_p, gks_blocks * (gks_tile + 2)) + 2.0 * B * Tp * nnz_rp
+                                + 38.0 * el_p), resources=repr_res["G"]),
+        dict(key="G_fk_product", name="fused_spectral_repr_fullk_product", source=spectral_src,
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:851", front_end="product",
+             launches=counts["fused_spectral_repr_fullk:product"],
+             run=lambda: spectral.fused_spectral_repr(mono, n_fft_y, hop_y, "if", **kw_gky),
+             plain=lambda: spectral.fused_spectral_repr_reference(mono, n_fft_y, hop_y, "if", **kw_gky),
+             library=lib_polarif_y, bound=bound_of(4.0 * B * L + 8.0 * el_y, gif_need_y),
+             ceiling=ceiling_of(fullk_y * (Ty + 1) / Ty + 2.0 * B * Ty * nnz_gy + 38.0 * el_y)),
         dict(key="H", name="fused_repr_stats", source=spectral_src + " (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:938", front_end="fft",
              launches=counts["fused_repr_stats:fft"],
@@ -5842,13 +6029,23 @@ def main() -> int:
              library=lib_stats_polar, bound=bound_of(4.0 * B * L, h_need),
              ceiling=ceiling_of(fft_design_flops(N_FFT, B * Tn) + 36.0 * n_el),
              extra=dict(modelled_partials_bytes_ms=partials_ms(hp_blocks), blocks=hp_blocks)),
-        dict(key="H_factored", name="fused_repr_stats_factored", source=spectral_src,
-             replaces="acids_transforms_tpu/ops/pallas/spectral.py:938", front_end="factored",
-             launches=counts["fused_repr_stats:factored"],
+        dict(key="H_smooth", name="fused_repr_stats_smooth", source=spectral_src + " (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:938", front_end="smooth",
+             launches=counts["fused_repr_stats:smooth"],
              run=lambda: spectral.fused_repr_stats(mono, n_fft_g, hop_g, "phase", taps=taps_g),
              plain=lambda: spectral.fused_repr_stats_reference(mono, n_fft_g, hop_g, "phase", taps=taps_g),
              library=lib_stats_polar_g, bound=bound_of(4.0 * B * L, fft_g + B * Tg * (n_fft_g + 41.0 * Fg)),
-             ceiling=ceiling_of(factored_g + 36.0 * el_g)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_g, B * Tg) + 36.0 * el_g), resources=repr_res["H"],
+             extra=dict(modelled_partials_bytes_ms=2.0 * 4 * hs_blocks * 8 * Fg / PEAK_BYTES_PER_S * 1e3,
+                        blocks=hs_blocks)),
+        dict(key="H_factored", name="fused_repr_stats_factored", source=spectral_src,
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:938", front_end="factored",
+             launches=counts["fused_repr_stats:factored"],
+             run=lambda: spectral.fused_repr_stats(mono, n_fft_y, hop_y, "phase", taps=taps_y),
+             plain=lambda: spectral.fused_repr_stats_reference(mono, n_fft_y, hop_y, "phase", taps=taps_y),
+             library=lambda: lib_repr_stats(stft_y(w_y), "phase"),
+             bound=bound_of(4.0 * B * L, fft_y + B * Ty * (n_fft_y + 41.0 * Fy)),
+             ceiling=ceiling_of(factored_y + 36.0 * el_y)),
         dict(key="H_fk", name="fused_repr_stats_fullk", source=spectral_src + " (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:916", front_end="fft",
              launches=counts["fused_repr_stats_fullk:fft"],
@@ -5858,13 +6055,23 @@ def main() -> int:
              library=lib_stats_polarif, bound=bound_of(4.0 * B * L, hif_need),
              ceiling=ceiling_of(fft_design_flops(N_FFT, h_blocks * (h_tile + 2)) + 44.0 * n_el),
              extra=dict(modelled_partials_bytes_ms=partials_ms(h_blocks), blocks=h_blocks)),
-        dict(key="H_fk_product", name="fused_repr_stats_fullk_product", source=spectral_src,
-             replaces="acids_transforms_tpu/ops/pallas/spectral.py:916", front_end="product",
-             launches=counts["fused_repr_stats_fullk:product"],
+        dict(key="H_fk_smooth", name="fused_repr_stats_fullk_smooth", source=spectral_src + " (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:916", front_end="smooth",
+             launches=counts["fused_repr_stats_fullk:smooth"],
              run=lambda: spectral.fused_repr_stats(mono, n_fft_p, hop_p, "if", taps=None, window=w_p),
              plain=lambda: spectral.fused_repr_stats_reference(mono, n_fft_p, hop_p, "if", taps=None, window=w_p),
              library=lambda: lib_repr_stats(stft_p(), "if"), bound=bound_of(4.0 * B * L, hif_need_p),
-             ceiling=ceiling_of(fullk_p * (Tp + 1) / Tp + 44.0 * el_p)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_p, hks_blocks * (hks_tile + 2)) + 44.0 * el_p),
+             resources=repr_res["H"],
+             extra=dict(modelled_partials_bytes_ms=2.0 * 4 * hks_blocks * 8 * Fp / PEAK_BYTES_PER_S * 1e3,
+                        blocks=hks_blocks)),
+        dict(key="H_fk_product", name="fused_repr_stats_fullk_product", source=spectral_src,
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:916", front_end="product",
+             launches=counts["fused_repr_stats_fullk:product"],
+             run=lambda: spectral.fused_repr_stats(mono, n_fft_y, hop_y, "if", taps=None, window=w_yd),
+             plain=lambda: spectral.fused_repr_stats_reference(mono, n_fft_y, hop_y, "if", taps=None, window=w_yd),
+             library=lambda: lib_repr_stats(stft_y(w_yd), "if"), bound=bound_of(4.0 * B * L, hif_need_y),
+             ceiling=ceiling_of(fullk_y * (Ty + 1) / Ty + 44.0 * el_y)),
         dict(key="I", name="gl_project", front_end="fft",
              source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:236",
@@ -6574,6 +6781,16 @@ def main() -> int:
         log(f"  smooth plan sweep {shape} (E + F b2b, ms; tile x FFTs, KB, blocks an SM): " + "; ".join(
             f"{p['tile']} x {p['teams']} ({p['smem_kb']:.1f} KB, {p['blocks']}) {p['e_ms']:.3f} + {p['f_ms']:.3f}"
             for p in r["rows"]) + f"; the rule's pick {r['pick']} {100 * r['over']:+.1f}% over the best {r['best']}")
+    # G and H full-K on the smooth route under every plan (reported, not gated)
+    def opt_ms(v):
+        return "-" if v is None else f"{v:.3f}"
+
+    for label, r in repr_plan_sweep(mono, args.repeats).items():
+        log(f"  G / H smooth plan sweep {label} (G / H b2b ms; tile x FFTs, G's / H's KB): " + "; ".join(
+            f"{p['tile']} x {p['teams']} ({p['g_kb']:.1f} / {p['h_kb']:.1f} KB) {opt_ms(p['g_ms'])} / "
+            f"{opt_ms(p['h_ms'])}" for p in r["rows"]) + "; " + "; ".join(
+            f"{k.upper()}: the rule's pick {r[k]['pick']} {100 * r[k]['over']:+.1f}% over the best {r[k]['best']}"
+            for k in ("g", "h")))
     # C, D, I and J at 768 on the product instance against the smooth one, in
     # turns (reported, not gated): what the smooth route changed
     turns = gl_route_turns(mono, args.repeats)

@@ -202,11 +202,13 @@ def test_no_route_counted_on_the_cpu():
     assert set(SP.routes) == {"fused_melspec_fullk:fft", "fused_melspec_fullk:smooth", "fused_melspec_fullk:product",
                               "fused_melspec_stats_fullk:fft", "fused_melspec_stats_fullk:smooth",
                               "fused_melspec_stats_fullk:product",
-                              "fused_spectral_repr_fullk:fft", "fused_spectral_repr_fullk:product",
-                              "fused_repr_stats_fullk:fft", "fused_repr_stats_fullk:product",
+                              "fused_spectral_repr_fullk:fft", "fused_spectral_repr_fullk:smooth",
+                              "fused_spectral_repr_fullk:product",
+                              "fused_repr_stats_fullk:fft", "fused_repr_stats_fullk:smooth",
+                              "fused_repr_stats_fullk:product",
                               "fused_melspec:fft", "fused_melspec:smooth", "fused_melspec:factored",
                               "fused_melspec_stats:fft", "fused_melspec_stats:smooth",
                               "fused_melspec_stats:factored",
-                              "fused_spectral_repr:fft", "fused_spectral_repr:factored",
-                              "fused_repr_stats:fft", "fused_repr_stats:factored"}
+                              "fused_spectral_repr:fft", "fused_spectral_repr:smooth", "fused_spectral_repr:factored",
+                              "fused_repr_stats:fft", "fused_repr_stats:smooth", "fused_repr_stats:factored"}
 

@@ -9,8 +9,9 @@ kernels take the shape, they run ``csrc/spectral.cu:melspec_forward_kernel``
 ``frames_rfft_reference(..., smooth=True)`` over the whole clip, frames paired
 ``(2j, 2j + 1)`` as the kernels' even tiles pair them.  896 = 2^7 7 keeps the
 product (E, F) and the factored (A, B) front ends; the representation
-kernels G and H keep theirs at 768.  ``chip_smoke.py`` holds the kernels to
-these plain versions on the card.
+kernels G and H take the smooth route at 768 too
+(``tests/test_torch_repr_smooth.py``).  ``chip_smoke.py`` holds the kernels
+to these plain versions on the card.
 
 Tolerances, and why:
 
@@ -155,7 +156,7 @@ def test_smooth_route_no_further_from_the_oracle_than_the_route_it_replaces(audi
     fac = pk._factored_spectrum(x, n_fft, hop, True, taps)
     y_fac = pk._melspec_epilogue(*fac, bank, OFFSET, SCALE, "log1p", 1.0, torch.float32)
     assert np.abs(t2n(y_smooth) - yo).max() <= np.abs(t2n(y_fac) - yo).max()
-    b_s = errs(*pk._spectrum(x, n_fft, hop, True, taps, None, smooth=True), St)
+    b_s = errs(*pk._spectrum(x, n_fft, hop, True, taps, None), St)
     b_f = errs(*fac, St)
     assert b_s[0] <= b_f[0] and b_s[1] <= b_f[1], (b_s, b_f)
 
@@ -184,7 +185,8 @@ def test_a_b_are_e_f_under_the_taps_window(audio, n_fft, hop, wname):
 
 def test_route_rules_and_plans():
     """The smooth route at every even 5-smooth shape the kernels take, 896/224
-    on the product and factored front ends, G and H's plans unchanged at 768,
+    on the product and factored front ends (G and H's too; at 768 G and H
+    plan the smooth route),
     the plan rule's picks (the fastest of a sweep of every plan on an H100,
     or within 10 % of it: 1920/480), and no launch counted on a CPU
     tensor."""
@@ -206,19 +208,22 @@ def test_route_rules_and_plans():
     assert pk.melspec_route(896) == "other" and pk.melspec_route(1024) == "fft"
     for stats in (False, True):
         for second in pk.SECONDS:
-            assert pk._repr_plan(768, 192, TAPS["hann"], stats, second, False) == (pk._pick_repr_tile(192, 4, 385), 0)
-            assert pk._repr_plan(768, 256, None, stats, second, False) == (pk._pick_repr_tile(256, 3, 385), 0)
+            assert pk._repr_plan(896, 224, TAPS["hann"], stats, second, False) == (pk._pick_repr_tile(224, 4, 449), 0)
+            assert pk._repr_plan(896, 224, None, stats, second, False) == (pk._pick_repr_tile(224, 4, 449), 0)
+            assert pk._repr_plan(768, 192, TAPS["hann"], stats, second, False) == pk._pick_repr_smooth_plan(
+                768, 192, stats, second, False)
+            assert pk._repr_plan(768, 256, None, stats, second, False)[1] > 0
     x = torch.as_tensor(make_audio(84, batch=2, n=4000)[:, 0])
     pk.reset_launches()
     w = gaussian_dgt_window(768)
     pk.fused_melspec(x, 768, 256, window=w)
     pk.fused_melspec_stats(x, 768, 192, taps=TAPS["hann"])
-    # G and H's plain versions keep the product route at 768: the trap of a
-    # front end shared with the melspec family
+    # G's plain version takes the smooth route at 768 as E's does (the front
+    # end shared with the melspec family), not the product route it ran before
     g = pk.fused_spectral_repr(x, 768, 256, "imag", window=w)
-    re, im = pk._fullk_spectrum(x, 768, 256, True, w)
+    re, im = pk._fullk_spectrum(x, 768, 256, True, w, smooth=True)
     assert torch.equal(g[0], re) and torch.equal(g[1], pk._pin_nyquist(im))
-    assert not torch.equal(re, pk._fullk_spectrum(x, 768, 256, True, w, smooth=True)[0])
+    assert not torch.equal(re, pk._fullk_spectrum(x, 768, 256, True, w)[0])
     assert not any(pk.launches.values()) and not any(pk.routes.values())
     assert {"fused_melspec:smooth", "fused_melspec_stats:smooth", "fused_melspec_fullk:smooth",
             "fused_melspec_stats_fullk:smooth"} <= set(pk.routes)

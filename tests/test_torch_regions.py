@@ -47,22 +47,24 @@ def test_table_loads_and_values_measured():
                                "pghi_gl": None, "random": None}
     assert all(regions.batch_cap(m) is None for m in s["batch_caps"])
     assert t["fuse_fit"]["fullk_n_fft_max"] == 4096 == regions.fit_fullk_max_n_fft()
-    # the magnitude's fit (F) won on the smooth route at 768/192 (0.22x) and
+    # the magnitude's fit (F) won on the smooth route at 768/192 (0.26x) and
     # lost on the product route at 896/224 (1.14x); PolarIF's (H full-K) won
-    # on its product route at both (0.57x, 0.56x)
+    # on its smooth route at 768/192 (0.24x) and its product route at
+    # 896/224 (0.56x)
     assert t["fuse_fit"]["melspec_fullk_routes"] == ["fft", "smooth"]
-    assert t["fuse_fit"]["repr_fullk_routes"] == ["fft", "product"]
+    assert t["fuse_fit"]["repr_fullk_routes"] == ["fft", "smooth", "product"]
     ff = t["fuse_forward"]
     # (region, n_fft_min, routes): at 64/32 the kernel lost for the
     # cosine-sum magnitude (1.05x) and Polar (1.08x, 1.12x); MFCC won there
-    # this time (0.96x, 1.05x before: run noise near 1); the full-K
-    # magnitude's product route lost at 896/224 (1.39x), the full-K Polar's
-    # at 768/192 and 896/224 (1.28x, 1.21x)
-    smooth, fact, prod = ["fft", "smooth", "factored"], ["fft", "factored"], ["fft", "product"]
+    # this time (0.98x, 1.05x two sweeps before: run noise near 1); the
+    # full-K magnitude's product route lost at 896/224 (1.40x), the full-K
+    # Polar's too (1.20x); every pattern's smooth route won at 768/192
+    # (0.16-0.23x; the representations' since they took it)
+    smooth, prod = ["fft", "smooth", "factored"], ["fft", "smooth", "product"]
     for r, lo, routes in ((ff["melspec_taps"], 128, smooth), (ff["melspec_fullk"], 64, ["fft", "smooth"]),
-                          (ff["repr_if"]["taps"], 64, fact), (ff["repr_if"]["fullk"], 64, prod),
-                          (ff["repr_phase_imag"]["taps"], 128, fact), (ff["repr_phase_imag"]["fullk"], 128, ["fft"]),
-                          (ff["mfcc"], 64, smooth)):
+                          (ff["repr_if"]["taps"], 64, smooth), (ff["repr_if"]["fullk"], 64, prod),
+                          (ff["repr_phase_imag"]["taps"], 128, smooth),
+                          (ff["repr_phase_imag"]["fullk"], 128, ["fft", "smooth"]), (ff["mfcc"], 64, smooth)):
         assert set(r) == {"_why", "n_fft_min", "n_fft_max", "routes"}   # no overlap key
         assert (r["n_fft_min"], r["n_fft_max"], r["routes"]) == (lo, 4096, routes)
         assert "896/224" in r["_why"]
@@ -226,12 +228,15 @@ def test_fuse_region_helpers_match_table():
     assert regions.repr_region_ok(64, 32, True, "if") and not regions.repr_region_ok(64, 32, True, "phase")
     assert regions.mfcc_region_ok(64, 32) and regions.mfcc_region_ok(128, 32)
     # full-K magnitude: the FFT and smooth routes (its product route lost at
-    # 896: 1.39x; at 768 the smooth route won, 0.17x)
+    # 896: 1.40x; at 768 the smooth route won, 0.16x)
     assert regions.melspec_region_ok(2048, 512, False) and regions.melspec_region_ok(768, 192, False)
     assert regions.melspec_region_ok(1920, 480, False) and not regions.melspec_region_ok(896, 224, False)
     assert regions.melspec_region_ok(896, 224, True)                             # A factored: 0.51x
+    # the representations: the smooth route won at 768 (0.23x), the full-K
+    # Polar's product route lost at 896 (1.20x), PolarIF's won (0.90x)
     assert regions.repr_region_ok(768, 192, False, "if") and regions.repr_region_ok(896, 224, False, "if")
-    assert not regions.repr_region_ok(768, 192, False, "phase") and regions.repr_region_ok(768, 192, True, "phase")
+    assert regions.repr_region_ok(768, 192, False, "phase") and regions.repr_region_ok(768, 192, True, "phase")
+    assert regions.repr_region_ok(1920, 480, False, "phase") and not regions.repr_region_ok(896, 224, False, "phase")
     assert regions.repr_region_ok(512, 128, True, "imag") and regions.repr_region_ok(4096, 1024, False, "imag")
     assert regions.mfcc_region_ok(1024, 256) and regions.mfcc_region_ok(768, 192) and regions.mfcc_region_ok(896, 224)
     assert not regions.mfcc_region_ok(8192, 2048)
@@ -259,7 +264,7 @@ def _fuse_chains(n_fft, hop):
 
 @pytest.mark.parametrize("n_fft,hop,expected", [
     (1024, 256, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_fullk", "phase_taps", "mfcc"}),
-    (768, 192, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_taps", "mfcc"}),
+    (768, 192, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_fullk", "phase_taps", "mfcc"}),
     (896, 224, {"melspec_taps", "if_fullk", "phase_taps", "mfcc"}),
     (2048, 256, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_fullk", "phase_taps", "mfcc"}),
     (128, 32, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_fullk", "phase_taps", "mfcc"}),
@@ -293,13 +298,15 @@ def test_fuse_auto_consults_regions(monkeypatch):
 
 
 def test_fit_fullk_region_consults_regions():
-    """A gaussian chain fits on the kernel up to 4096 on the FFT route and,
-    for the magnitude, the smooth route (768: 0.22x); at 896 (the product
-    route lost, 1.14x) and 8192 ``auto`` runs ``chain.fit``; PolarIF's fit
-    (H full-K) takes its product route at 896 (0.56x); a window with taps
-    fits on the kernel wherever it is available."""
+    """A gaussian chain fits on the kernel up to 4096 on the FFT route and
+    the smooth route (768: the magnitude 0.26x, PolarIF 0.24x); at 896 (the
+    magnitude's product route lost, 1.14x) and 8192 ``auto`` runs
+    ``chain.fit``; PolarIF's fit (H full-K) takes its product route at 896
+    (0.56x); a window with taps fits on the kernel wherever it is
+    available."""
     assert fuse._fit_region(PT.DGT(n_fft=2048, hop_length=512, device="cpu"))
     assert fuse._fit_region(PT.DGT(n_fft=768, hop_length=192, device="cpu"))
+    assert fuse._fit_region(PT.DGT(n_fft=768, hop_length=192, device="cpu"), two_channel=True)
     assert not fuse._fit_region(PT.DGT(n_fft=896, hop_length=224, device="cpu"))
     assert fuse._fit_region(PT.DGT(n_fft=896, hop_length=224, device="cpu"), two_channel=True)
     assert not fuse._fit_region(PT.DGT(n_fft=8192, hop_length=2048, device="cpu"))
@@ -355,44 +362,46 @@ def test_region_admits_a_route_only_where_a_point_of_it_won(monkeypatch):
 
 
 def test_repr_regions_read_their_own_768_point(monkeypatch):
-    """G and H have no smooth route: 768/192 and 896/224 both measure their
-    factored / product front end, admitted only where both won; the smooth
-    route of a log-mel region never reaches a representation."""
+    """G and H take the smooth route at 768 as the log-mel kernels do: 768/192
+    measures it and 896/224 their factored / product front end, each route
+    admitted only where its own point won; a representation region reads
+    its own sweep, never the log-mel region's."""
     from acids_transforms_tpu_torch.tools import sweep_regions as tool
 
     card = "NVIDIA H100 80GB HBM3, 700.00 W"
     one = _sweep_rows(tool.SHAPES, s768=0.6, s896=1.4)
-    both = _sweep_rows(tool.SHAPES, s768=0.6, s896=0.7)
-    assert tool.shape_region(one, card, "w", "repr_if_fullk")["routes"] == ["fft"]
-    assert tool.shape_region(both, card, "w", "repr_if_fullk")["routes"] == ["fft", "product"]
-    assert tool.shape_region(both, card, "w", "repr_phase_taps")["routes"] == ["fft", "factored"]
-    assert regions.kernel_route(768, True, smooth=False) == "factored"
-    assert regions.kernel_route(768, False, smooth=True) == "smooth"
+    other = _sweep_rows(tool.SHAPES, s768=1.3, s896=0.7)
+    assert tool.shape_region(one, card, "w", "repr_if_fullk")["routes"] == ["fft", "smooth"]
+    assert tool.shape_region(other, card, "w", "repr_if_fullk")["routes"] == ["fft", "product"]
+    assert tool.shape_region(other, card, "w", "repr_phase_taps")["routes"] == ["fft", "factored"]
+    assert regions.kernel_route(896, True) == "factored" and regions.kernel_route(896, False) == "product"
+    assert regions.kernel_route(768, False) == "smooth" and regions.kernel_route(768, True) == "smooth"
     _with_table(monkeypatch, fuse_forward={
         "melspec_fullk": tool.shape_region(one, card, "w", "melspec_fullk"),
-        "repr_if": {"taps": tool.shape_region(both, card, "w", "repr_if_taps"),
-                    "fullk": tool.shape_region(one, card, "w", "repr_if_fullk")}})
+        "repr_if": {"taps": tool.shape_region(other, card, "w", "repr_if_taps"),
+                    "fullk": tool.shape_region(other, card, "w", "repr_if_fullk")}})
     assert regions.melspec_region_ok(768, 256, False)
     assert not regions.repr_region_ok(768, 256, False, "if") and regions.repr_region_ok(1024, 256, False, "if")
-    assert regions.repr_region_ok(768, 192, True, "if") and regions.repr_region_ok(896, 224, True, "if")
+    assert not regions.repr_region_ok(768, 192, True, "if") and regions.repr_region_ok(896, 224, True, "if")
 
 
 def test_fit_region_follows_the_route_rule(monkeypatch):
-    """The full-K fit admits a route per family by the same rule: F (the
-    magnitude) the smooth route where its 768 point won, H full-K the
-    product route where both its 768 and 896 points won."""
+    """The full-K fit admits a route per family by the same rule, each from
+    its own points: F (the magnitude) the smooth route where its 768 point
+    won, H full-K the smooth route where its own 768 point won and the
+    product route where its 896 point did (here the other way round)."""
     from acids_transforms_tpu_torch.tools import sweep_regions as tool
 
     fit = {"fit_melspec_fullk": _sweep_rows(tool.FIT_SHAPES, s768=0.6, s896=1.4),
-           "fit_repr_if_fullk": _sweep_rows(tool.FIT_SHAPES, s768=0.6, s896=1.2)}
+           "fit_repr_if_fullk": _sweep_rows(tool.FIT_SHAPES, s768=1.2, s896=0.6)}
     sec = tool.fit_section(fit, "NVIDIA H100 80GB HBM3, 700.00 W")
     assert sec["fullk_n_fft_max"] == 4096
-    assert sec["melspec_fullk_routes"] == ["fft", "smooth"] and sec["repr_fullk_routes"] == ["fft"]
+    assert sec["melspec_fullk_routes"] == ["fft", "smooth"] and sec["repr_fullk_routes"] == ["fft", "product"]
     _with_table(monkeypatch, fuse_fit=sec)
     assert regions.fit_fullk_region_ok(768) and regions.fit_fullk_region_ok(1920)
     assert not regions.fit_fullk_region_ok(896) and not regions.fit_fullk_region_ok(8192)
     assert not regions.fit_fullk_region_ok(768, two_channel=True)
-    assert regions.fit_fullk_region_ok(1024, two_channel=True)
+    assert regions.fit_fullk_region_ok(1024, two_channel=True) and regions.fit_fullk_region_ok(896, two_channel=True)
     dgt = PT.DGT(n_fft=768, hop_length=192, device="cpu")
     assert fuse._fit_region(dgt) and not fuse._fit_region(dgt, two_channel=True)
     assert fuse._fit_region(PT.STFT(n_fft=896, hop_length=224, device="cpu"), two_channel=True)

@@ -13,7 +13,8 @@ whole clip where ``frames_fft.fft_covers(n_fft)``: pairs of frames ``(2j, 2j +
   tolerances (channel 1 1e-4 relative; angles on the circle, weighted by
   |X| / max|X|, 1e-5; the statistics within the two packages' elementwise
   differences);
-* the product route still held against JAX at 768/256 (no power of two);
+* the product route still held against JAX at 896/224 (2^7 7), the smooth
+  route at 768/256;
 * the plain version is the same whatever the card's frame tile: the
   whole-clip schedule equals a tile-by-tile emulation of the kernel (two
   frames before each tile: the IF's halo frame and its FFT partner) bit for
@@ -129,12 +130,17 @@ def test_h_fft_plain_vs_pallas_kernel(audio, n_fft, hop, second):
 
 
 def test_product_route_vs_pallas_kernel_at_768_256(audio):
-    n_fft, hop = 768, 256
-    assert not FF.fft_covers(n_fft)
+    """The product route, at 896/224 (2^7 7; 768/256 takes the smooth route
+    since G and H have one, held here as G's smooth case and in
+    ``tests/test_torch_repr_smooth.py``)."""
+    n_fft, hop = 896, 224
+    assert not FF.fft_covers(n_fft) and not FF.fft_covers_smooth(n_fft)
     for stats in (False, True):
         assert pk._repr_plan(n_fft, hop, None, stats, "if", not stats)[1] == 0
+        assert pk._repr_plan(768, 256, None, stats, "if", not stats)[1] > 0
     check_g(audio, n_fft, hop, "if", True)
     check_h(audio, n_fft, hop, "phase")
+    check_g(audio, 768, 256, "if", True)
 
 
 def _block_spectra(x, n_fft, hop, window, tile_t, halo):
