@@ -33,14 +33,21 @@
 // and, as the mixed-radix route (template argument kSmooth = true) where
 // fft_covers_smooth() takes n_fft (even, 2^a 3^b 5^c, 64 to 4096, no power of
 // two: 1200, 960, 768, 400, 1920, ...), in R, the magnitude encode of N, L, M,
-// the decodes P, S and O's projection synthesis, E and F (so A and B), the
-// Griffin-Lim steps J, C, D and I, K's synthesis and O's polish
-// (session_encode_kernel<., true, true>, session_roundtrip_fft_kernel<., true>,
-// session_decode_fft_kernel<., true>, spectral.cu:block_magnitudes<.,
-// kFrontSmooth>, glstep_fullk.cu:gl_fullk_fft_kernel<true>,
-// glstep.cu:gl_step_fft_kernel<true>, pghi.cu:pghi_synthesize_fft_kernel<true>,
-// stream_step.cu:gl_polish_fft_kernel<., true>); every other kernel (G, H, O's
-// analysis) keeps its product route at those sizes.
+// the decodes P, S and O's projection synthesis, E and F (so A and B), G and
+// H (full-K and under the taps' window), the Griffin-Lim steps J, C, D and I,
+// K's synthesis and O's polish (session_encode_kernel<., true, true>,
+// session_roundtrip_fft_kernel<., true>, session_decode_fft_kernel<., true>,
+// spectral.cu:block_magnitudes<., kFrontSmooth>, spectral.cu:
+// repr_forward_kernel / repr_stats_kernel<., kFrontSmooth>,
+// glstep_fullk.cu:gl_fullk_fft_kernel<true>, glstep.cu:gl_step_fft_kernel<true>,
+// pghi.cu:pghi_synthesize_fft_kernel<true>, stream_step.cu:gl_polish_fft_kernel<.,
+// true>); O's analysis keeps its product route at those sizes.  With a
+// radix-7 stage as well (template argument kSeven = true) where
+// fft_covers_smooth7() takes n_fft and n_fft has a factor 7 (even, 2^a 3^b 5^c
+// 7^d: 896, 1344, 1680, 1764, ...), in R, the magnitude encode of N, L and M
+// only (session_encode_kernel<., true, true, true>,
+// session_roundtrip_fft_kernel<., true, true>); every other kernel keeps its
+// product route at those sizes.
 //
 // What they compute.  frames_rfft: X_r[k] = sum_n w[n] xs[r hop + n] e^{-2 pi
 // i n k / n} for k <= n / 2 of every frame r < n_frames of a sample buffer
@@ -128,14 +135,20 @@
 // The mixed-radix route (kSmooth).  The same pairs, split, pack, inverse and
 // class order; what differs:
 // * the stages: Stockham auto-sort over the radices of fft_smooth_plan
-//   (fives, threes, fours, then a two when log2 of n's power of two is odd;
-//   ops/cuda/frames_fft.py:fft_radices), one stage per trip: stage radix r,
-//   stride s: butterfly b < n / r reads x[b + k n / r], takes the length-r
-//   DFT (fft_dft: radix 3 and 5 with constants rounded once from float64,
-//   kR3S .. kR5S2) and writes y[r (b - q) + q + s k] (q = b mod s), outputs
-//   1 .. r - 1 turned by the table's entries k (b - q); the last stage has b
-//   - q = 0 for every butterfly, so it turns nothing and writes where it
-//   reads.  1200 = 5 5 3 4 4: five trips.
+//   (sevens, fives, threes, fours, then a two when log2 of n's power of two
+//   is odd; ops/cuda/frames_fft.py:fft_radices), one stage per trip: stage
+//   radix r, stride s: butterfly b < n / r reads x[b + k n / r], takes the
+//   length-r DFT (fft_dft: radix 3, 5 and 7 with constants rounded once from
+//   float64, kR3S .. kR7S3) and writes y[r (b - q) + q + s k] (q = b mod s),
+//   outputs 1 .. r - 1 turned by the table's entries k (b - q); the last
+//   stage has b - q = 0 for every butterfly, so it turns nothing and writes
+//   where it reads.  1200 = 5 5 3 4 4: five trips; 1344 = 7 3 4 4 4.
+// * the radix-7 stage is compiled only into the instances that take a
+//   factor 7 (kSeven, R's and L's): fft_passes_smooth<false> holds no
+//   radix-7 loop and fft_smooth_plan<false> no count of sevens, so every
+//   other mixed-radix instance compiles as it did before the stage existed.
+//   Its butterfly (fft_dft<7>, the symmetric form of frames_fft._dft7) holds
+//   the 14 inputs, 12 sums and differences and a pair of partial sums.
 // * out of place: the stages alternate between the team's buffer (re, im)
 //   and a second half (re2, im2), one team barrier a stage, a butterfly at a
 //   time in registers; the last stage runs in place when the others are
@@ -151,7 +164,7 @@
 // * the buffer: no swizzle (n is no multiple of 32, and the XOR of fft_swz
 //   would leave the buffer).  The reads x[b + k n / r] are contiguous across
 //   a warp's lanes; the odd radices run first, where their stride-r writes
-//   (s = 1) fall on distinct banks for r = 3, 5; the later strides' writes
+//   (s = 1) fall on distinct banks for r = 3, 5, 7; the later strides' writes
 //   mix runs of s lanes: at 1200 the writes of stages 2-4 are 1.88, 2.15
 //   and 1.30 ways on average, 3 at most (counted from the address pattern:
 //   tools/fft_bank_conflicts.py).  Teams that share a warp start G banks
@@ -194,13 +207,20 @@ __host__ __device__ inline size_t fft_smem_floats(int n, int teams) {
 
 // ---- the mixed-radix route's rule, plan and layout (frames_fft.py twins)
 
-// sin(pi / 3); cos(2 pi / 5), cos(4 pi / 5), sin(2 pi / 5), sin(4 pi / 5):
-// float64 rounded once (frames_fft.SMOOTH_CONSTANTS)
+// sin(pi / 3); cos(2 pi / 5), cos(4 pi / 5), sin(2 pi / 5), sin(4 pi / 5);
+// cos and sin of 2 pi / 7, 4 pi / 7 and 6 pi / 7: float64 rounded once
+// (frames_fft.SMOOTH_CONSTANTS)
 constexpr float kR3S = 0x1.bb67aep-1f;
 constexpr float kR5C1 = 0x1.3c6ef4p-2f;
 constexpr float kR5C2 = -0x1.9e377ap-1f;
 constexpr float kR5S1 = 0x1.e6f0e2p-1f;
 constexpr float kR5S2 = 0x1.2cf230p-1f;
+constexpr float kR7C1 = 0x1.3f3a0ep-1f;
+constexpr float kR7C2 = -0x1.c7b90ep-3f;
+constexpr float kR7C3 = -0x1.cd4bcap-1f;
+constexpr float kR7S1 = 0x1.904c38p-1f;
+constexpr float kR7S2 = 0x1.f329c0p-1f;
+constexpr float kR7S3 = 0x1.bc4c04p-2f;
 
 __host__ __device__ inline bool fft_covers_smooth(int n) {
     if (n < kFftMin || n > kFftMax || (n & 1) || (n & (n - 1)) == 0) return false;
@@ -210,13 +230,33 @@ __host__ __device__ inline bool fft_covers_smooth(int n) {
     return n == 1;
 }
 
-// fives, threes, fours, then a two (frames_fft.fft_radices)
+// fft_covers_smooth and the sizes with a factor 7 (frames_fft.fft_covers_smooth7):
+// the route of R, the magnitude encode, L and M
+__host__ __device__ inline bool fft_covers_smooth7(int n) {
+    if (n < kFftMin || n > kFftMax || (n & 1) || (n & (n - 1)) == 0) return false;
+    while (n % 2 == 0) n /= 2;
+    while (n % 3 == 0) n /= 3;
+    while (n % 5 == 0) n /= 5;
+    while (n % 7 == 0) n /= 7;
+    return n == 1;
+}
+
+// sevens, fives, threes, fours, then a two (frames_fft.fft_radices).
+// kSeven defaults to false here and in every template below: an instance
+// counts sevens only where it says so.  fft_smooth_plan<false> takes n with
+// no factor 7 (fft_covers_smooth(n): the entries of every instance without
+// the radix-7 stage admit no other n); the layout's size,
+// fft_smooth_smem_floats, counts them for every n.
 struct FftPlan {
-    int n5, n3, n4, n2;
+    int n7, n5, n3, n4, n2;
 };
 
+template <bool kSeven = false>
 __host__ __device__ inline FftPlan fft_smooth_plan(int n) {
-    FftPlan p = {0, 0, 0, 0};
+    FftPlan p = {0, 0, 0, 0, 0};
+    if constexpr (kSeven) {
+        while (n % 7 == 0) { ++p.n7; n /= 7; }
+    }
     while (n % 5 == 0) { ++p.n5; n /= 5; }
     while (n % 3 == 0) { ++p.n3; n /= 3; }
     while (n % 4 == 0) { ++p.n4; n /= 4; }
@@ -234,9 +274,10 @@ __host__ __device__ inline int fft_smooth_team_threads(int n) {
 __host__ __device__ inline int fft_smooth_max_teams(int n) { return kThreads / fft_smooth_team_threads(n); }
 
 // twiddle entries the stages read: max (r - 1)(n / r - s) + 1 before the last stage
+template <bool kSeven = false>
 __host__ __device__ inline int fft_smooth_table(int n) {
-    const FftPlan p = fft_smooth_plan(n);
-    const int n_st = p.n5 + p.n3 + p.n4 + p.n2;
+    const FftPlan p = fft_smooth_plan<kSeven>(n);
+    const int n_st = p.n7 + p.n5 + p.n3 + p.n4 + p.n2;
     int s = 1, out = 1, st = 0;
     auto stage = [&](int r) {
         if (st < n_st - 1) {
@@ -246,6 +287,7 @@ __host__ __device__ inline int fft_smooth_table(int n) {
         s *= r;
         ++st;
     };
+    for (int i = 0; i < p.n7; ++i) stage(7);
     for (int i = 0; i < p.n5; ++i) stage(5);
     for (int i = 0; i < p.n3; ++i) stage(3);
     for (int i = 0; i < p.n4; ++i) stage(4);
@@ -261,7 +303,7 @@ __host__ __device__ inline int fft_smooth_buf_floats(int n) {
 }
 
 __host__ __device__ inline size_t fft_smooth_smem_floats(int n, int teams) {
-    return (size_t)n + 2 * (size_t)fft_smooth_table(n) + (size_t)teams * fft_smooth_buf_floats(n);
+    return (size_t)n + 2 * (size_t)fft_smooth_table<true>(n) + (size_t)teams * fft_smooth_buf_floats(n);
 }
 
 template <bool kSmooth>
@@ -281,9 +323,9 @@ struct FftSmem {
     float* buf;  // [teams][fft_buf_floats(n)]  (kSmooth: fft_smooth_buf_floats)
 };
 
-template <bool kSmooth = false>
+template <bool kSmooth = false, bool kSeven = false>
 __device__ __forceinline__ FftSmem carve_fft(float* base, int n) {
-    const int nt = kSmooth ? fft_smooth_table(n) : 3 * n / 4;
+    const int nt = kSmooth ? fft_smooth_table<kSeven>(n) : 3 * n / 4;
     FftSmem s;
     s.win = base;
     s.twr = s.win + n;
@@ -294,11 +336,11 @@ __device__ __forceinline__ FftSmem carve_fft(float* base, int n) {
 
 // The window (n floats) and the twiddle table ((2, n) floats: cos, -sin) from
 // device memory into shared memory.  No barrier: frames_rfft starts with one.
-template <bool kSmooth = false>
+template <bool kSmooth = false, bool kSeven = false>
 static __device__ void fft_stage(const float* __restrict__ window, const float* __restrict__ tw,
                                  FftSmem s, int n) {
     for (int i = threadIdx.x; i < n; i += kThreads) s.win[i] = __ldg(window + i);
-    const int nt = kSmooth ? fft_smooth_table(n) : 3 * n / 4;
+    const int nt = kSmooth ? fft_smooth_table<kSeven>(n) : 3 * n / 4;
     for (int i = threadIdx.x; i < nt; i += kThreads) {
         s.twr[i] = __ldg(tw + i);
         s.twi[i] = __ldg(tw + n + i);
@@ -534,8 +576,53 @@ __device__ __forceinline__ void fft_dft(float (&r)[R], float (&i)[R]) {
         i[1] = __fsub_rn(ai, br);
         r[2] = __fsub_rn(ar, bi);
         i[2] = __fadd_rn(ai, br);
+    } else if constexpr (R == 7) {
+        // s_k = x_k + x_7-k, d_k = x_k - x_7-k (k = 1, 2, 3); y0 = ((x0 + s1) + s2) + s3;
+        // a_m = ((x0 + s1 cos(2 pi m / 7)) + s2 cos(4 pi m / 7)) + s3 cos(6 pi m / 7),
+        // b_m = (d1 sin(2 pi m / 7) + d2 sin(4 pi m / 7)) + d3 sin(6 pi m / 7), each
+        // term with one of the six constants (a negative sine subtracts it);
+        // y_m = a_m - i b_m, y_7-m = a_m + i b_m (frames_fft._dft7)
+        float sr[3], si[3], dr[3], di[3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            sr[k] = __fadd_rn(r[k + 1], r[6 - k]);
+            si[k] = __fadd_rn(i[k + 1], i[6 - k]);
+            dr[k] = __fsub_rn(r[k + 1], r[6 - k]);
+            di[k] = __fsub_rn(i[k + 1], i[6 - k]);
+        }
+        const float x0r = r[0], x0i = i[0];
+        r[0] = __fadd_rn(__fadd_rn(__fadd_rn(x0r, sr[0]), sr[1]), sr[2]);
+        i[0] = __fadd_rn(__fadd_rn(__fadd_rn(x0i, si[0]), si[1]), si[2]);
+        auto cosine = [&](float c1, float c2, float c3, float& ar, float& ai) {
+            ar = __fadd_rn(__fadd_rn(__fadd_rn(x0r, __fmul_rn(sr[0], c1)), __fmul_rn(sr[1], c2)),
+                           __fmul_rn(sr[2], c3));
+            ai = __fadd_rn(__fadd_rn(__fadd_rn(x0i, __fmul_rn(si[0], c1)), __fmul_rn(si[1], c2)),
+                           __fmul_rn(si[2], c3));
+        };
+        auto out = [&](int m, float ar, float ai, float br, float bi) {
+            r[m] = __fadd_rn(ar, bi);
+            i[m] = __fsub_rn(ai, br);
+            r[7 - m] = __fsub_rn(ar, bi);
+            i[7 - m] = __fadd_rn(ai, br);
+        };
+        float ar, ai, br, bi;
+        // m = 1: sines s1, s2, s3
+        cosine(kR7C1, kR7C2, kR7C3, ar, ai);
+        br = __fadd_rn(__fadd_rn(__fmul_rn(dr[0], kR7S1), __fmul_rn(dr[1], kR7S2)), __fmul_rn(dr[2], kR7S3));
+        bi = __fadd_rn(__fadd_rn(__fmul_rn(di[0], kR7S1), __fmul_rn(di[1], kR7S2)), __fmul_rn(di[2], kR7S3));
+        out(1, ar, ai, br, bi);
+        // m = 2: sines s2, -s3, -s1
+        cosine(kR7C2, kR7C3, kR7C1, ar, ai);
+        br = __fsub_rn(__fsub_rn(__fmul_rn(dr[0], kR7S2), __fmul_rn(dr[1], kR7S3)), __fmul_rn(dr[2], kR7S1));
+        bi = __fsub_rn(__fsub_rn(__fmul_rn(di[0], kR7S2), __fmul_rn(di[1], kR7S3)), __fmul_rn(di[2], kR7S1));
+        out(2, ar, ai, br, bi);
+        // m = 3: sines s3, -s1, s2
+        cosine(kR7C3, kR7C1, kR7C2, ar, ai);
+        br = __fadd_rn(__fsub_rn(__fmul_rn(dr[0], kR7S3), __fmul_rn(dr[1], kR7S1)), __fmul_rn(dr[2], kR7S2));
+        bi = __fadd_rn(__fsub_rn(__fmul_rn(di[0], kR7S3), __fmul_rn(di[1], kR7S1)), __fmul_rn(di[2], kR7S2));
+        out(3, ar, ai, br, bi);
     } else {
-        static_assert(R == 5, "radix 2, 3, 4 or 5");
+        static_assert(R == 5, "radix 2, 3, 4, 5 or 7");
         const float s1r = __fadd_rn(r[1], r[4]), s1i = __fadd_rn(i[1], i[4]);
         const float d1r = __fsub_rn(r[1], r[4]), d1i = __fsub_rn(i[1], i[4]);
         const float s2r = __fadd_rn(r[2], r[3]), s2i = __fadd_rn(i[2], i[3]);
@@ -637,21 +724,27 @@ __device__ __forceinline__ void fft_smooth_step(FftPingPong& pp, const FftTeam& 
 }
 
 // The mixed-radix forward complex FFT of the team's buffer (re, im), natural
-// order, the result in (re, im); barriers as fft_passes'.
+// order, the result in (re, im); barriers as fft_passes'.  kSeven: with the
+// radix-7 stages (the instances that take a factor 7); without, n must have
+// none.
+template <bool kSeven = false>
 __device__ __forceinline__ void fft_passes_smooth(const FftTeam& t, bool active, int n, const FftSmem& s) {
-    const FftPlan p = fft_smooth_plan(n);
-    FftPingPong pp = {t.re, t.im, t.im + n, t.im + 2 * n, 0, p.n5 + p.n3 + p.n4 + p.n2, 1};
+    const FftPlan p = fft_smooth_plan<kSeven>(n);
+    FftPingPong pp = {t.re, t.im, t.im + n, t.im + 2 * n, 0, p.n7 + p.n5 + p.n3 + p.n4 + p.n2, 1};
     fft_team_sync(t.team, t.G);
+    if constexpr (kSeven) {
+        for (int i = 0; i < p.n7; ++i) fft_smooth_step<7>(pp, t, active, n, s);
+    }
     for (int i = 0; i < p.n5; ++i) fft_smooth_step<5>(pp, t, active, n, s);
     for (int i = 0; i < p.n3; ++i) fft_smooth_step<3>(pp, t, active, n, s);
     for (int i = 0; i < p.n4; ++i) fft_smooth_step<4>(pp, t, active, n, s);
     if (p.n2) fft_smooth_step<2>(pp, t, active, n, s);
 }
 
-template <bool kSmooth>
+template <bool kSmooth, bool kSeven = false>
 __device__ __forceinline__ void fft_passes_of(const FftTeam& t, bool active, int n, const FftSmem& s) {
     if constexpr (kSmooth) {
-        fft_passes_smooth(t, active, n, s);
+        fft_passes_smooth<kSeven>(t, active, n, s);
     } else {
         fft_passes(t, active, n, s);
     }
@@ -680,8 +773,10 @@ __device__ __forceinline__ void fft_split(const FftTeam& t, int k, int n, float&
 // written to xs before the call: it starts with a barrier.  It ends with one,
 // so what emit wrote to shared memory is readable on return.
 // kSmooth: the mixed-radix route (fft_covers_smooth(n)), twiddles staged by
-// fft_stage<true> into an area carved by carve_fft<true>.
-template <bool kSmooth = false, typename Emit>
+// fft_stage<true> into an area carved by carve_fft<true>; with kSeven
+// (fft_covers_smooth7(n)) the radix-7 stages too, the area carved and staged
+// by carve_fft<true, true> / fft_stage<true, true>.
+template <bool kSmooth = false, bool kSeven = false, typename Emit>
 __device__ void frames_rfft(const float* xs, int n_frames, int hop, int n, FftSmem s, int teams,
                             Emit emit, int stride = 1) {
     __syncthreads();
@@ -697,7 +792,7 @@ __device__ void frames_rfft(const float* xs, int n_frames, int hop, int n, FftSm
         const bool active = t.has_team && p < n_pairs && r0 < n_frames;
         const bool two = r1 < n_frames;
         if (active) fft_load_pair<kSmooth>(t, xs + (size_t)r0 * hop, xs + (size_t)r1 * hop, two, n, s);
-        fft_passes_of<kSmooth>(t, active, n, s);
+        fft_passes_of<kSmooth, kSeven>(t, active, n, s);
         if (active) {  // split the pair
             for (int k = t.j; k <= half; k += t.G) {
                 float ar, ai, br, bi;
@@ -722,7 +817,7 @@ __device__ void frames_rfft(const float* xs, int n_frames, int hop, int n, FftSm
 // emit(r, i, v) of both frames' samples v = wsyn[i] Re / Im of conj(FFT(conj
 // Z)).  spec may read the buffer at k and n - k: the thread that packs bin k
 // writes exactly those two places.
-template <bool kSmooth = false, typename Prep, typename Spec, typename Emit>
+template <bool kSmooth = false, bool kSeven = false, typename Prep, typename Spec, typename Emit>
 __device__ void frames_irfft_classes(int n_frames, int stride, int n, const FftSmem& s,
                                      const float* wsyn, int teams, Prep prep, Spec spec,
                                      Emit emit) {
@@ -756,7 +851,7 @@ __device__ void frames_irfft_classes(int n_frames, int stride, int n, const FftS
                     }
                 }
             }
-            fft_passes_of<kSmooth>(t, active, n, s);
+            fft_passes_of<kSmooth, kSeven>(t, active, n, s);
             if (active) {
                 for (int i = t.j; i < n; i += t.G) {
                     const int idx = fft_idx<kSmooth>(i);
@@ -805,16 +900,16 @@ __device__ void frames_irfft(int n_frames, int stride, int n, FftSmem s, const f
 // synthesized under wsyn and handed to emit(r, i, v) in class order.  The
 // pairs are frames_rfft's with this stride, so the plain version is
 // frames_rfft_reference and frames_irfft_reference with it.  Barriers as
-// frames_irfft's; xs written before the call.
-template <bool kSmooth = false, typename Modify, typename Emit>
+// frames_irfft's; xs written before the call.  kSeven as frames_rfft's.
+template <bool kSmooth = false, bool kSeven = false, typename Modify, typename Emit>
 __device__ void frames_roundtrip(const float* xs, int n_frames, int hop, int n, FftSmem s,
                                  const float* wsyn, int stride, int teams, Modify modify,
                                  Emit emit) {
-    frames_irfft_classes<kSmooth>(
+    frames_irfft_classes<kSmooth, kSeven>(
         n_frames, stride, n, s, wsyn, teams,
         [&](const FftTeam& t, bool active, int r0, int r1, bool two) {
             if (active) fft_load_pair<kSmooth>(t, xs + (size_t)r0 * hop, xs + (size_t)r1 * hop, two, n, s);
-            fft_passes_of<kSmooth>(t, active, n, s);
+            fft_passes_of<kSmooth, kSeven>(t, active, n, s);
         },
         [&](const FftTeam& t, int r0, int r1, bool two, int k, float& ar, float& ai, float& br,
             float& bi) {

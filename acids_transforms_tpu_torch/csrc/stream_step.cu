@@ -11,7 +11,9 @@
 //                                    <- _session_random_kernel         (make_fused_random_roundtrip)
 //   (the encodes' and the roundtrips' kSmooth instances: the same four on the
 //   mixed-radix route, where fft_covers_smooth(n_fft): 1200, 960, 768, ...;
-//   the decodes' likewise, session_decode_fft_kernel<., true> below)
+//   their kSeven instances, with a radix-7 stage, where fft_covers_smooth7(n_fft)
+//   and n_fft has a factor 7: 896, 1344, 1680, ...; the decodes' kSmooth
+//   instances likewise, session_decode_fft_kernel<., true> below, without sevens)
 //   session_decode_kernel<., false>  <- _session_random_invert_kernel  (make_fused_random_invert;
 //                                       also the synthesis of the RT-PGHI sessions N and Q, with
 //                                       the recurrence's phases as its angles)
@@ -49,9 +51,13 @@
 // DFT with fft_smem.cuh:frames_rfft (the FFT route); other shapes keep the
 // product below (the product route); where fft_covers_smooth(n_fft) (even,
 // 2^a 3^b 5^c, 64 to 4096, no power of two) with frames_rfft's mixed-radix
-// instance (the smooth route: session_encode_kernel<., true, true>).  The
-// roundtrips likewise: where fft_covers(n_fft), or on the smooth route
-// where fft_covers_smooth(n_fft), fft_smem.cuh:frames_roundtrip (each frame pair's
+// instance (the smooth route: session_encode_kernel<., true, true>), and where
+// n_fft is even, 2^a 3^b 5^c 7^d with a factor 7 (fft_covers_smooth7: 896, 1344,
+// 1680, ...) with its radix-7 instance (session_encode_kernel<., true, true,
+// true>).  The roundtrips likewise: where fft_covers(n_fft), or on the smooth
+// route where fft_covers_smooth7(n_fft) and the block fits (the radix-7
+// instance session_roundtrip_fft_kernel<., true, true> where n_fft has a
+// factor 7), fft_smem.cuh:frames_roundtrip (each frame pair's
 // forward FFT, its bins, its inverse FFT in one team's buffer, the synthesis
 // overlap-added into the block's output chunks in class order); elsewhere the
 // products: the analysis of the R + overlap - 1 frames that cover a block's R
@@ -320,8 +326,10 @@ __host__ __device__ inline size_t decode_smem_floats(int rows, int overlap, int 
 // even, so of the session too), at most 128 registers a thread so that two
 // blocks share an SM (79 KB of shared memory each at 1024/256: 32 frames, 4
 // FFTs side by side); with kSmooth its mixed-radix instance (74 KB at
-// 1200/300: 16 frames, 2 FFTs of 128 threads); otherwise the product route.
-template <bool kMag, bool kFft, bool kSmooth = false>
+// 1200/300: 16 frames, 2 FFTs of 128 threads); with kSeven its radix-7
+// instance (fft_covers_smooth7(n_fft), n_fft with a factor 7: 1344 = 7 3 4 4
+// 4); otherwise the product route.
+template <bool kMag, bool kFft, bool kSmooth = false, bool kSeven = false>
 __global__ void __launch_bounds__(kThreads, kFft ? 2 : 1) session_encode_kernel(SessionArgs a) {
     extern __shared__ __align__(16) float smem[];
     const long long blk = blockIdx.x;
@@ -334,15 +342,15 @@ __global__ void __launch_bounds__(kThreads, kFft ? 2 : 1) session_encode_kernel(
     float* work = xs + (size_t)(a.rows - 1) * a.hop + klen;  // 16-byte aligned: hop % 4 == 0
     FftSmem fs = {};
     if constexpr (kFft) {
-        fs = carve_fft<kSmooth>(work, n_fft);
-        fft_stage<kSmooth>(a.win, a.fft_tw, fs, n_fft);  // load_session_samples' barrier covers it
+        fs = carve_fft<kSmooth, kSeven>(work, n_fft);
+        fft_stage<kSmooth, kSeven>(a.win, a.fft_tw, fs, n_fft);  // load_session_samples' barrier covers it
     }
     load_session_samples(a.x + (size_t)b * a.L, a.L, (long long)t0 * a.hop,
                          (a.overlap - 1) * a.hop, (n_rows - 1) * a.hop + klen, xs);
     const int F = a.F;
     auto analysis = [&](auto emit) {
         if constexpr (kFft) {
-            frames_rfft<kSmooth>(xs, n_rows, a.hop, n_fft, fs, a.teams, emit);
+            frames_rfft<kSmooth, kSeven>(xs, n_rows, a.hop, n_fft, fs, a.teams, emit);
         } else {
             fullk_analysis(xs, n_rows, a.hop, a.Kn, F, a.wc, a.ws, work, emit);
         }
@@ -416,8 +424,9 @@ __global__ void __launch_bounds__(kThreads) session_roundtrip_kernel(SessionArgs
 // in class order, and the chunks stored.  Two blocks an SM at 1024/256.
 // kSmooth: the mixed-radix instance (fft_covers_smooth(n_fft); 16 chunks, 2
 // FFTs of 128 threads, 107 KB, two blocks an SM at 1200/300; plan
-// frames_fft.class_plan_smooth).
-template <bool kRandom, bool kSmooth = false>
+// frames_fft.class_plan_smooth); with kSeven its radix-7 instance
+// (fft_covers_smooth7(n_fft), n_fft with a factor 7).
+template <bool kRandom, bool kSmooth = false, bool kSeven = false>
 __global__ void __launch_bounds__(kThreads, 2) session_roundtrip_fft_kernel(SessionArgs a) {
     extern __shared__ __align__(16) float smem[];
     const int m = a.overlap - 1, F = a.F, hop = a.hop, ov = a.overlap, T = a.T;
@@ -429,9 +438,9 @@ __global__ void __launch_bounds__(kThreads, 2) session_roundtrip_fft_kernel(Sess
     const int n_frames = min(a.rows + 2 * ov, T + m - j0);
     float* xs = smem;                                            // frames' samples
     float* out = xs + (size_t)(a.rows + 2 * ov - 1) * hop + n;   // [rows][hop]
-    const FftSmem fs = carve_fft<kSmooth>(out + (size_t)a.rows * hop, n);
+    const FftSmem fs = carve_fft<kSmooth, kSeven>(out + (size_t)a.rows * hop, n);
     float* wsyn = fs.buf + (size_t)a.teams * fft_buf_floats_of<kSmooth>(n);
-    fft_stage<kSmooth>(a.win, a.fft_tw, fs, n);
+    fft_stage<kSmooth, kSeven>(a.win, a.fft_tw, fs, n);
     for (int i = threadIdx.x; i < n; i += kThreads) wsyn[i] = __ldg(a.wsyn + i);
     for (int i = threadIdx.x; i < a.rows * hop; i += kThreads) out[i] = 0.0f;
     // frame f reads x[(f - m) hop, ..): local frame 0 starts 2 m hop before j0 hop
@@ -440,7 +449,7 @@ __global__ void __launch_bounds__(kThreads, 2) session_roundtrip_fft_kernel(Sess
     const int f0 = j0 - m;
     const float* ang = kRandom ? a.angles + (size_t)b * a.Ta * F : nullptr;
     const int n_out = (j_end - j0) * hop;
-    frames_roundtrip<kSmooth>(
+    frames_roundtrip<kSmooth, kSeven>(
         xs, n_frames, hop, n, fs, wsyn, ov, a.teams,
         [&](int r, int k, float& re, float& im) {
             const int f = f0 + r;
@@ -778,9 +787,10 @@ long long att_gl_polish_smem_bytes(int Tp, int hop, int n_fft, int teams, int re
 // (B, T, F, 2), or (B, T, F) for the magnitude, every element written; hop a
 // multiple of 4.  teams > 0 selects the FFT route: n_fft = overlap hop must be
 // a power of two from 64 to 4096 (1 <= teams <= 4096 / n_fft), or the smooth
-// route where fft_covers_smooth(n_fft) (1 <= teams <= fft_smooth_max_teams),
-// window (n_fft,) and fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft), rows
-// even; wc / ws and Kn are not read.  teams == 0 selects the product route: wc / ws (Kn, F),
+// route where fft_covers_smooth7(n_fft) (1 <= teams <= fft_smooth_max_teams;
+// the radix-7 instance where n_fft has a factor 7), window (n_fft,) and fft_tw
+// (2, n_fft) = (cos, -sin)(2 pi j / n_fft), rows even; wc / ws and Kn are not
+// read.  teams == 0 selects the product route: wc / ws (Kn, F),
 // Kn a multiple of 32 >= n_fft, zero rows past n_fft, rows <= 40 frames per
 // block; window and fft_tw are not read.  Returns a cudaError_t.
 int att_session_encode(const float* x, const float* wc, const float* ws, const float* window,
@@ -791,9 +801,10 @@ int att_session_encode(const float* x, const float* wc, const float* ws, const f
     const int n_fft = overlap * hop;
     const bool fft = teams > 0;
     const bool smooth = fft && !fft_covers(n_fft);
+    const bool seven = smooth && n_fft % 7 == 0;
     const int max_teams = smooth ? fft_smooth_max_teams(n_fft) : fft_max_teams(n_fft);
     if (!session_args_ok(B, T, F, hop, overlap) || rows < 1 || F != n_fft / 2 + 1 ||
-        (fft && ((smooth && !fft_covers_smooth(n_fft)) || teams > max_teams || rows % 2 != 0)) ||
+        (fft && ((smooth && !fft_covers_smooth7(n_fft)) || teams > max_teams || rows % 2 != 0)) ||
         (!fft && (Kn % kKC != 0 || rows > kMaxRows))) {
         return (int)cudaErrorInvalidValue;
     }
@@ -807,20 +818,22 @@ int att_session_encode(const float* x, const float* wc, const float* ws, const f
     const dim3 grid((unsigned)(B * a.n_tiles));
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
-#define ATT_LAUNCH_ENC(MAG, FFT, SMOOTH)                                           \
-    do {                                                                           \
-        err = session_allow_smem(session_encode_kernel<MAG, FFT, SMOOTH>, smem);   \
-        if (err != cudaSuccess) return (int)err;                                   \
-        session_encode_kernel<MAG, FFT, SMOOTH><<<grid, kThreads, smem, s>>>(a);   \
+#define ATT_LAUNCH_ENC(MAG, FFT, SMOOTH, SEVEN)                                         \
+    do {                                                                                \
+        err = session_allow_smem(session_encode_kernel<MAG, FFT, SMOOTH, SEVEN>, smem);  \
+        if (err != cudaSuccess) return (int)err;                                        \
+        session_encode_kernel<MAG, FFT, SMOOTH, SEVEN><<<grid, kThreads, smem, s>>>(a);  \
     } while (0)
     if (magnitude) {
-        if (smooth) ATT_LAUNCH_ENC(true, true, true);
-        else if (fft) ATT_LAUNCH_ENC(true, true, false);
-        else ATT_LAUNCH_ENC(true, false, false);
+        if (seven) ATT_LAUNCH_ENC(true, true, true, true);
+        else if (smooth) ATT_LAUNCH_ENC(true, true, true, false);
+        else if (fft) ATT_LAUNCH_ENC(true, true, false, false);
+        else ATT_LAUNCH_ENC(true, false, false, false);
     } else {
-        if (smooth) ATT_LAUNCH_ENC(false, true, true);
-        else if (fft) ATT_LAUNCH_ENC(false, true, false);
-        else ATT_LAUNCH_ENC(false, false, false);
+        if (seven) ATT_LAUNCH_ENC(false, true, true, true);
+        else if (smooth) ATT_LAUNCH_ENC(false, true, true, false);
+        else if (fft) ATT_LAUNCH_ENC(false, true, false, false);
+        else ATT_LAUNCH_ENC(false, false, false, false);
     }
 #undef ATT_LAUNCH_ENC
     return (int)cudaGetLastError();
@@ -829,8 +842,9 @@ int att_session_encode(const float* x, const float* wc, const float* ws, const f
 // Kernels L (angles == nullptr) and M.  x (B, L); angles (B, Ta, F) with
 // Ta >= T; out (B, T * hop), every sample written.  teams > 0 selects the FFT
 // route: n_fft = overlap hop a power of two from 64 to 4096 (1 <= teams <=
-// 4096 / n_fft), or the smooth route where fft_covers_smooth(n_fft) (1 <=
-// teams <= fft_smooth_max_teams), window (n_fft,) the analysis window, wsyn
+// 4096 / n_fft), or the smooth route where fft_covers_smooth7(n_fft) (1 <=
+// teams <= fft_smooth_max_teams; the radix-7 instance where n_fft has a
+// factor 7), window (n_fft,) the analysis window, wsyn
 // (n_fft,) the synthesis window / gain / n_fft (frames_fft.irfft_window),
 // fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft), rows a multiple of 2
 // overlap; wc, ws, syn, Kn and Kp are not read.  teams ==
@@ -846,9 +860,10 @@ int att_session_roundtrip(const float* x, const float* angles, const float* wc, 
     const int n_fft = overlap * hop;
     const bool fft = teams > 0;
     const bool smooth = fft && !fft_covers(n_fft);
+    const bool seven = smooth && n_fft % 7 == 0;
     const int max_teams = smooth ? fft_smooth_max_teams(n_fft) : fft_max_teams(n_fft);
     if (!session_args_ok(B, T, F, hop, overlap) || rows < 1 || (angles != nullptr && Ta < T) ||
-        (fft && ((smooth && !fft_covers_smooth(n_fft)) || F != n_fft / 2 + 1 || teams > max_teams ||
+        (fft && ((smooth && !fft_covers_smooth7(n_fft)) || F != n_fft / 2 + 1 || teams > max_teams ||
                  rows % (2 * overlap) != 0)) ||
         (!fft && (Kn % kKC != 0 || Kp % kSynKC != 0 || Kp < 2 * F || rows + overlap - 1 > kMaxRows))) {
         return (int)cudaErrorInvalidValue;
@@ -866,16 +881,18 @@ int att_session_roundtrip(const float* x, const float* angles, const float* wc, 
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
     if (fft) {
-#define ATT_LAUNCH_RTF(RAND, SMOOTH)                                               \
-    do {                                                                           \
-        err = session_allow_smem(session_roundtrip_fft_kernel<RAND, SMOOTH>, smem);\
-        if (err != cudaSuccess) return (int)err;                                   \
-        session_roundtrip_fft_kernel<RAND, SMOOTH><<<grid, kThreads, smem, s>>>(a);\
+#define ATT_LAUNCH_RTF(RAND, SMOOTH, SEVEN)                                                 \
+    do {                                                                                    \
+        err = session_allow_smem(session_roundtrip_fft_kernel<RAND, SMOOTH, SEVEN>, smem);  \
+        if (err != cudaSuccess) return (int)err;                                            \
+        session_roundtrip_fft_kernel<RAND, SMOOTH, SEVEN><<<grid, kThreads, smem, s>>>(a);  \
     } while (0)
-        if (smooth) {
-            if (angles != nullptr) ATT_LAUNCH_RTF(true, true); else ATT_LAUNCH_RTF(false, true);
+        if (seven) {
+            if (angles != nullptr) ATT_LAUNCH_RTF(true, true, true); else ATT_LAUNCH_RTF(false, true, true);
+        } else if (smooth) {
+            if (angles != nullptr) ATT_LAUNCH_RTF(true, true, false); else ATT_LAUNCH_RTF(false, true, false);
         } else {
-            if (angles != nullptr) ATT_LAUNCH_RTF(true, false); else ATT_LAUNCH_RTF(false, false);
+            if (angles != nullptr) ATT_LAUNCH_RTF(true, false, false); else ATT_LAUNCH_RTF(false, false, false);
         }
 #undef ATT_LAUNCH_RTF
         return (int)cudaGetLastError();

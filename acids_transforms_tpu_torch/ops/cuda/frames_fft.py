@@ -14,14 +14,17 @@ inverse; the full-K Griffin-Lim step (J) both; the streaming roundtrips (L,
 M) both in one team (``frames_roundtrip``), wherever :func:`fft_covers`
 takes ``n_fft``.  R, N's encode, L, M, the streaming decodes (P, S, O's
 projection synthesis), the full-K melspec forward and fit (E, F, and so
-A and B under the taps' own window), the Griffin-Lim steps (J, C, D, I),
+A and B under the taps' own window), the representation forward and fit (G,
+H, full-K and under the taps' window), the Griffin-Lim steps (J, C, D, I),
 K's synthesis and O's polish also take the mixed-radix schedule wherever
 :func:`fft_covers_smooth` takes ``n_fft`` (even, ``2^a 3^b 5^c``, 64 to 4096,
 not a power of two: 1200, 960, 768, 400, 1920, ...; the Griffin-Lim steps,
-K's synthesis and the polish where their block fits too); every other
-``n_fft`` keeps the window-folded products of ``dft_common.cuh`` and
-``synth_ola.cuh`` (and A and B their factored front end; O's polish the
-two-launch projection).
+K's synthesis and the polish where their block fits too); R, N's encode, L
+and M also where :func:`fft_covers_smooth7` does (a factor 7 as well: 896,
+1344, 1680, 1764, ...; L and M where their block fits), with a radix-7
+stage; every other ``n_fft`` keeps the window-folded products of
+``dft_common.cuh`` and ``synth_ola.cuh`` (and A, B, G and H their factored
+front end; O's polish the two-launch projection).
 
 The schedule, which :func:`frames_rfft_reference` and
 :func:`frames_irfft_reference` repeat step for step:
@@ -38,11 +41,11 @@ The schedule, which :func:`frames_rfft_reference` and
   rounded to float32 (:func:`fft_twiddles`).  The kernel runs two stages per
   trip through shared memory, which changes no operation;
 * the mixed-radix schedule (``smooth=True``) is the same Stockham auto-sort
-  FFT over the radices of :func:`fft_radices` (fives, threes, fours, then a
-  two), one stage per trip: stage radix ``r`` with stride ``s`` reads
+  FFT over the radices of :func:`fft_radices` (sevens, fives, threes, fours,
+  then a two), one stage per trip: stage radix ``r`` with stride ``s`` reads
   ``x[b + k n/r]``, ``k < r``, for each butterfly ``b < n/r``, takes the
-  length-``r`` DFT (:func:`_dft`; the radix-3 and radix-5 constants rounded
-  once from float64, :data:`SMOOTH_CONSTANTS`) and writes ``y[r (b - q) + q +
+  length-``r`` DFT (:func:`_dft`; the radix-3, radix-5 and radix-7 constants
+  rounded once from float64, :data:`SMOOTH_CONSTANTS`) and writes ``y[r (b - q) + q +
   s k]`` (``q = b mod s``), the outputs 1 to ``r - 1`` turned by the
   twiddles ``e^{-2 pi i k (b - q) / n}`` of the same table, except in the
   last stage, whose twiddles are all 1;
@@ -73,7 +76,7 @@ __all__ = [
     "fft_smem_floats", "frames_rfft_reference", "frames_irfft_reference", "irfft_window",
     "overlap_add_classes", "class_plan", "taps_window", "fft_covers_smooth", "fft_radices",
     "fft_smooth_team_threads", "fft_smooth_max_teams", "fft_smooth_table", "fft_smooth_smem_floats",
-    "SMOOTH_CONSTANTS", "class_plan_smooth", "fft_area_floats",
+    "SMOOTH_CONSTANTS", "class_plan_smooth", "fft_area_floats", "fft_covers_smooth7",
 ]
 
 FFT_MIN, FFT_MAX = 64, 4096       # the sizes frames_rfft takes (powers of two)
@@ -86,11 +89,12 @@ TWO_BLOCKS_SMEM = SM_SMEM // 2 - 1024   # a block's share when two run on one SM
 
 def fft_covers(n_fft: int) -> bool:
     """Whether the FFT route takes ``n_fft``: a power of two from 64 to 4096.
-    Elsewhere G and H run their product routes; R, L, M, the decodes, E and
-    F (with A and B), J, C, D, I, K's synthesis and O's polish take the
-    smooth route where :func:`fft_covers_smooth` does, and the products (A
-    and B the factored front end, O's polish the two-launch projection) at
-    every other ``n_fft``."""
+    Elsewhere R, L, M, the decodes, E and F (with A and B), G and H, J, C, D,
+    I, K's synthesis and O's polish take the smooth route where
+    :func:`fft_covers_smooth` does (R, N's encode, L and M where
+    :func:`fft_covers_smooth7` does), and the products (A, B, G and H the
+    factored front end, O's polish the two-launch projection) at every other
+    ``n_fft``."""
     n = int(n_fft)
     return FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0
 
@@ -101,13 +105,27 @@ def fft_covers_smooth(n_fft: int) -> bool:
     :func:`fft_covers`'s schedule).  R, the magnitude encode, L, M, the
     streaming decodes (P, S, O's projection synthesis), the full-K melspec
     forward and fit E and F (so A and B, under the taps' own window), the
-    Griffin-Lim steps J, C, D and I, K's synthesis and O's polish (each
-    where its block fits) take it; every other kernel (G, H, O's analysis)
-    runs its product route there."""
+    representation forward and fit G and H, the Griffin-Lim steps J, C, D and
+    I, K's synthesis and O's polish (each where its block fits) take it; O's
+    analysis runs its product route there."""
+    return _smooth(n_fft, (2, 3, 5))
+
+
+def fft_covers_smooth7(n_fft: int) -> bool:
+    """Whether the mixed-radix route with its radix-7 stage takes ``n_fft``:
+    even, ``2^a 3^b 5^c 7^d`` (``a >= 1``), from 64 to 4096, and not a power
+    of two; every size :func:`fft_covers_smooth` takes, and those with a
+    factor 7 (896, 1344, 1680, 1764, ...).  R, the magnitude encode, L and M
+    (L and M where their block fits) take it; every other kernel keeps
+    :func:`fft_covers_smooth`."""
+    return _smooth(n_fft, (2, 3, 5, 7))
+
+
+def _smooth(n_fft: int, primes: Tuple[int, ...]) -> bool:
     n = int(n_fft)
     if not FFT_MIN <= n <= FFT_MAX or n % 2 or n & (n - 1) == 0:
         return False
-    for p in (2, 3, 5):
+    for p in primes:
         while n % p == 0:
             n //= p
     return n == 1
@@ -115,15 +133,16 @@ def fft_covers_smooth(n_fft: int) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def fft_radices(n_fft: int) -> Tuple[int, ...]:
-    """The radix plan of ``n_fft = 2^a 3^b 5^c``, in the order the stages
-    run: the fives, the threes, ``a // 2`` fours, then a two when ``a`` is
-    odd (a power of two gets the radix-4 schedule's own radices).  The odd
-    radices go first: their stride-``r`` writes (stride 1) fall on distinct
-    banks, and the last stage, which needs no twiddle and writes where it
-    reads, is a four or a two.  ``csrc/fft_smem.cuh:fft_smooth_plan`` is its
-    twin."""
+    """The radix plan of ``n_fft = 2^a 3^b 5^c 7^d``, in the order the
+    stages run: the sevens, the fives, the threes, ``a // 2`` fours, then a
+    two when ``a`` is odd (a power of two gets the radix-4 schedule's own
+    radices).  The odd radices go first: their stride-``r`` writes (stride 1)
+    fall on distinct banks, and the last stage, which needs no twiddle and
+    writes where it reads, is a four or a two; a size without a seven keeps
+    the plan it had before the radix-7 stage.  ``csrc/fft_smem.cuh:
+    fft_smooth_plan`` is its twin."""
     n, out = int(n_fft), []
-    for p in (5, 3):
+    for p in (7, 5, 3):
         while n % p == 0:
             out.append(p)
             n //= p
@@ -134,15 +153,15 @@ def fft_radices(n_fft: int) -> Tuple[int, ...]:
         out.append(2)
         n = 1
     if n != 1:
-        raise ValueError("n_fft=%d is no 2^a 3^b 5^c" % int(n_fft))
+        raise ValueError("n_fft=%d is no 2^a 3^b 5^c 7^d" % int(n_fft))
     return tuple(out)
 
 
 def fft_smooth_team_threads(n_fft: int) -> int:
     """Threads that run one mixed-radix FFT together: the least power of two
     at or above ``n_fft / 16``, so that a thread holds 8 to 16 values, at
-    most the power-of-two route's 16, and teams tile warps (128 at 1200 and
-    1920, 64 at 960 and 768, 32 at 400, 8 at 96)."""
+    most the power-of-two route's 16, and teams tile warps (128 at 1200,
+    1920 and 1344, 64 at 960, 768 and 896, 32 at 400, 8 at 96)."""
     n, g = int(n_fft), 1
     while 16 * g < n:
         g *= 2
@@ -157,7 +176,8 @@ def fft_smooth_max_teams(n_fft: int) -> int:
 def fft_smooth_table(n_fft: int) -> int:
     """Twiddle-table entries the mixed-radix stages read: the largest ``k (b
     - q) + 1`` of a stage before the last, ``(r - 1)(n / r - s) + 1`` (957 at
-    1200, whose first stage is a five)."""
+    1200, whose first stage is a five; 763 at 896, 1147 at 1344 and 3451 at
+    4032, whose first stage is a seven)."""
     n, s, out = int(n_fft), 1, 1
     rad = fft_radices(n)
     for r in rad[:-1]:
@@ -182,13 +202,16 @@ def fft_smooth_smem_floats(n_fft: int, teams: int) -> int:
     return n_fft + 2 * fft_smooth_table(n_fft) + teams * fft_smooth_buf_floats(n_fft)
 
 
-#: the radix-3 and radix-5 butterflies' constants, rounded once from
-#: float64: sin(pi/3); cos(2 pi/5), cos(4 pi/5), sin(2 pi/5), sin(4 pi/5)
-#: (``csrc/fft_smem.cuh`` holds the same floats as hex literals)
+#: the radix-3, radix-5 and radix-7 butterflies' constants, rounded once
+#: from float64: sin(pi/3); cos(2 pi/5), cos(4 pi/5), sin(2 pi/5), sin(4
+#: pi/5); cos and sin of 2 pi/7, 4 pi/7 and 6 pi/7 (``csrc/fft_smem.cuh``
+#: holds the same floats as hex literals)
 SMOOTH_CONSTANTS = {
     name: float(np.float32(v)) for name, v in (
         ("r3s", np.sin(np.pi / 3)), ("r5c1", np.cos(2 * np.pi / 5)), ("r5c2", np.cos(4 * np.pi / 5)),
-        ("r5s1", np.sin(2 * np.pi / 5)), ("r5s2", np.sin(4 * np.pi / 5)))
+        ("r5s1", np.sin(2 * np.pi / 5)), ("r5s2", np.sin(4 * np.pi / 5)),
+        ("r7c1", np.cos(2 * np.pi / 7)), ("r7c2", np.cos(4 * np.pi / 7)), ("r7c3", np.cos(6 * np.pi / 7)),
+        ("r7s1", np.sin(2 * np.pi / 7)), ("r7s2", np.sin(4 * np.pi / 7)), ("r7s3", np.sin(6 * np.pi / 7)))
 }
 
 
@@ -378,7 +401,45 @@ def _dft(r: int, xr, xi):
         # y1,4 = a1 -+ i b1, y2,3 = a2 -+ i b2
         return ([(xr[0] + s1r) + s2r, a1r + b1i, a2r + b2i, a2r - b2i, a1r - b1i],
                 [(xi[0] + s1i) + s2i, a1i - b1r, a2i - b2r, a2i + b2r, a1i + b1r])
+    if r == 7:
+        return _dft7(xr, xi)
     raise ValueError("no radix-%d butterfly" % r)
+
+
+#: the radix-7 butterfly's terms: for m = 1, 2, 3 the constants of cos(2 pi m
+#: k / 7) and the signed constants of sin(2 pi m k / 7), k = 1, 2, 3
+_R7_COS = (("r7c1", "r7c2", "r7c3"), ("r7c2", "r7c3", "r7c1"), ("r7c3", "r7c1", "r7c2"))
+_R7_SIN = (((1, "r7s1"), (1, "r7s2"), (1, "r7s3")), ((1, "r7s2"), (-1, "r7s3"), (-1, "r7s1")),
+           ((1, "r7s3"), (-1, "r7s1"), (1, "r7s2")))
+
+
+def _dft7(xr, xi):
+    """The length-7 DFT in the symmetric form, in this order of float32
+    operations (``fft_smem.cuh:fft_dft<7>`` repeats it): ``s_k = x_k +
+    x_{7-k}``, ``d_k = x_k - x_{7-k}`` (``k = 1, 2, 3``); ``y_0 = ((x_0 + s_1)
+    + s_2) + s_3``; for ``m = 1, 2, 3`` ``a_m = ((x_0 + s_1 c_m1) + s_2 c_m2) +
+    s_3 c_m3`` and ``b_m = (d_1 e_m1 + d_2 e_m2) + d_3 e_m3`` with ``c_mk =
+    cos(2 pi m k / 7)`` and ``e_mk = sin(2 pi m k / 7)`` (each one of the six
+    constants; a negative sine subtracts its term), then ``y_m = a_m - i b_m``,
+    ``y_{7-m} = a_m + i b_m``."""
+    c = SMOOTH_CONSTANTS
+    sr = [xr[k] + xr[7 - k] for k in (1, 2, 3)]
+    si = [xi[k] + xi[7 - k] for k in (1, 2, 3)]
+    dr = [xr[k] - xr[7 - k] for k in (1, 2, 3)]
+    di = [xi[k] - xi[7 - k] for k in (1, 2, 3)]
+    yr, yi = [((xr[0] + sr[0]) + sr[1]) + sr[2]] + [None] * 6, [((xi[0] + si[0]) + si[1]) + si[2]] + [None] * 6
+    for m in (1, 2, 3):
+        cs, sn = _R7_COS[m - 1], _R7_SIN[m - 1]
+        ar = ((xr[0] + sr[0] * c[cs[0]]) + sr[1] * c[cs[1]]) + sr[2] * c[cs[2]]
+        ai = ((xi[0] + si[0] * c[cs[0]]) + si[1] * c[cs[1]]) + si[2] * c[cs[2]]
+        br, bi = dr[0] * c[sn[0][1]], di[0] * c[sn[0][1]]
+        for k in (1, 2):
+            sign, name = sn[k]
+            br = br + dr[k] * c[name] if sign > 0 else br - dr[k] * c[name]
+            bi = bi + di[k] * c[name] if sign > 0 else bi - di[k] * c[name]
+        yr[m], yi[m] = ar + bi, ai - br
+        yr[7 - m], yi[7 - m] = ar - bi, ai + br
+    return yr, yi
 
 
 def _stockham_smooth(re: torch.Tensor, im: torch.Tensor, twr: torch.Tensor, twi: torch.Tensor):
@@ -425,8 +486,8 @@ def _unpairs(first: torch.Tensor, second: torch.Tensor, lead, T: int, stride: in
 
 def _check_size(n: int, smooth: bool = False) -> None:
     if smooth:
-        if not fft_covers_smooth(n):
-            raise ValueError("the mixed-radix schedule takes n_fft even, 2^a 3^b 5^c, from %d to %d and no "
+        if not fft_covers_smooth7(n):
+            raise ValueError("the mixed-radix schedule takes n_fft even, 2^a 3^b 5^c 7^d, from %d to %d and no "
                              "power of two, got %d" % (FFT_MIN, FFT_MAX, n))
     elif not fft_covers(n):
         raise ValueError("frames_rfft takes n_fft a power of two from %d to %d, got %d" % (FFT_MIN, FFT_MAX, n))
@@ -439,7 +500,7 @@ def frames_rfft_reference(frames: torch.Tensor, window: torch.Tensor,
     schedule (module notes): pairs ``(2 stride g + c, 2 stride g + c +
     stride)`` along ``T`` (``stride = 1``: ``(2j, 2j + 1)``), the Stockham
     passes, the split.  ``smooth``: the mixed-radix schedule, for ``n_fft``
-    that :func:`fft_covers_smooth` takes.  Uses no ``torch.fft``."""
+    that :func:`fft_covers_smooth7` takes.  Uses no ``torch.fft``."""
     n = frames.shape[-1]
     _check_size(n, smooth)
     lead, T = frames.shape[:-2], frames.shape[-2]

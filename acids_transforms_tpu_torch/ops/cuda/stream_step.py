@@ -9,11 +9,12 @@ to three kernel launches instead of a Python loop of small ops per chunk
   ``frames_fft.fft_covers(n_fft)`` (a power of two from 64 to 4096) the
   encode and the magnitude encode take the FFT route
   (``csrc/fft_smem.cuh:frames_rfft``: the window and a twiddle table, no
-  basis); where ``frames_fft.fft_covers_smooth(n_fft)`` (even, ``2^a 3^b
-  5^c``, 64 to 4096, no power of two: 1200, 960, 768, ...) the smooth route,
-  the same kernel on ``frames_rfft``'s mixed-radix instance; every other
-  ``n_fft`` the product route (the window-folded ``(Kn, F)`` basis).  The
-  rule reads ``n_fft`` alone (:func:`session_route`);
+  basis); where ``frames_fft.fft_covers_smooth7(n_fft)`` (even, ``2^a 3^b
+  5^c 7^d``, 64 to 4096, no power of two: 1200, 960, 768, 1344, 896, ...)
+  the smooth route, the same kernel on ``frames_rfft``'s mixed-radix
+  instance (with its radix-7 stage where ``n_fft`` has a factor 7); every
+  other ``n_fft`` the product route (the window-folded ``(Kn, F)`` basis).
+  The encode's rule reads ``n_fft`` alone (:func:`session_route`);
 * ``make_fused_roundtrip`` (L): the complex roundtrip, audio -> audio;
 * ``make_fused_random_roundtrip`` (M): the ``random`` roundtrip (the
   reference's default realtime mode), ``|X|`` with the session's angles.
@@ -21,14 +22,18 @@ to three kernel launches instead of a Python loop of small ops per chunk
   (``csrc/fft_smem.cuh:frames_roundtrip``: each frame pair's forward and
   inverse FFT in one team's buffer, the frames overlap-added in class order;
   :func:`_roundtrip_plan`), the smooth route (its mixed-radix instance)
-  where ``fft_covers_smooth(n_fft)``, the products elsewhere;
+  where ``fft_covers_smooth(n_fft)``, or ``fft_covers_smooth7(n_fft)`` and
+  the smooth block fits (its radix-7 instance; at 4032 with overlap 4, 6, 7
+  and 8 it does not), the products elsewhere: the rule reads ``(n_fft,
+  hop)``;
 * ``make_fused_random_invert`` (P): the ``random`` decode, magnitudes
   ``(..., T, F)`` -> audio ``(..., T * hop)``.  P, S and O's projection
   synthesis take the FFT route where ``fft_covers(n_fft)``
   (``csrc/stream_step.cu:session_decode_fft_kernel``: ``frames_irfft`` of
   the input spectra, the roundtrips' synthesis; :func:`_decode_plan`), the
   smooth route (its mixed-radix instance) where ``fft_covers_smooth(n_fft)``,
-  the synthesis product elsewhere;
+  the synthesis product elsewhere (at 1344 = 2^6 3 7 too: the decodes have
+  no radix-7 instance);
 * ``make_fused_pghi_roundtrip`` (N): the phaseless RT-PGHI roundtrip, three
   launches: the magnitude encode (R's analysis with an ``|X|`` epilogue), the
   recurrence (``csrc/pghi.cu:rt_pghi_phases_kernel``, one block per session:
@@ -159,6 +164,7 @@ from .frames_fft import (
     fft_area_floats,
     fft_covers,
     fft_covers_smooth,
+    fft_covers_smooth7,
     fft_max_teams,
     fft_smooth_max_teams,
     fft_twiddles,
@@ -366,16 +372,37 @@ def _encode_smem_bytes(rows: int, hop: int, kn: int) -> int:
     return 4 * ((rows - 1) * hop + kn + _STAGE)
 
 
-def session_route(n_fft: int) -> str:
-    """The route of R, the magnitude encode, L, M and the decodes (P, S,
-    O's projection synthesis) at ``n_fft``: ``"fft"`` where ``fft_covers`` (a
-    power of two from 64 to 4096), ``"smooth"`` where ``fft_covers_smooth``
-    (the mixed-radix instance), else ``"product"``.  The polish takes the
-    same rule where :func:`_polish_plan` holds the grid (it has no product
-    route)."""
+SESSION_ROUTE_KINDS = ("encode", "roundtrip", "decode", "polish")
+
+
+def session_route(n_fft: int, kind: str, hop: Optional[int] = None) -> str:
+    """The route of the session kernel ``kind`` at ``n_fft``: ``"fft"`` where
+    ``fft_covers`` (a power of two from 64 to 4096), ``"smooth"`` where
+    ``fft_covers_smooth`` (the mixed-radix instance), else ``"product"``;
+    the encodes (``"encode"``: R and the magnitude encode) and the roundtrips
+    (``"roundtrip"``: L and M) also take ``"smooth"`` where
+    ``fft_covers_smooth7`` (a factor 7: their radix-7 instance), the
+    roundtrips only where the smooth block fits at ``hop`` (at 4032 with
+    overlap 4, 6, 7 and 8 it does not, the product block does; every encode
+    block fits).  The decodes (``"decode"``: P, S, O's projection synthesis)
+    keep ``fft_covers_smooth``, and so does the polish (``"polish"``), where
+    :func:`_polish_plan` holds the grid (it has no product route).  Every
+    caller names its kind: the C++ entries of R and L take the sevens, the
+    others do not."""
+    if kind not in SESSION_ROUTE_KINDS:
+        raise ValueError("session_route: kind %r is none of %s" % (kind, SESSION_ROUTE_KINDS))
     if fft_covers(n_fft):
         return "fft"
-    return "smooth" if fft_covers_smooth(n_fft) else "product"
+    if fft_covers_smooth(n_fft):
+        return "smooth"
+    if kind in ("encode", "roundtrip") and fft_covers_smooth7(n_fft):
+        if kind == "encode":
+            return "smooth"
+        if hop is None:
+            raise ValueError("the roundtrip's route at n_fft=%d reads the hop" % int(n_fft))
+        if _roundtrip_fft_plan(int(n_fft), int(hop), True) is not None:
+            return "smooth"
+    return "product"
 
 
 
@@ -446,13 +473,13 @@ def _encode_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
     threads run (``4096 / n_fft``), and a block of four rounds of them (8
     frames per FFT: measured fastest at 1024/256 among 1, 2, 4 and 8 rounds,
     two blocks to an SM), fewer rounds and then fewer FFTs where that does
-    not fit; the smooth route (``fft_covers_smooth(n_fft)``) the same rule
-    with its own teams (``frames_fft.fft_smooth_max_teams``: 2 at 1200, 16
-    frames), first among the blocks that leave room for a second on the SM
-    (measured on the H100 at 1920/480: 8 frames two blocks an SM 0.24 ms, 16
-    one block 0.35); the product route: ``teams = 0`` and
-    :func:`_pick_rows`'s height."""
-    route = session_route(n_fft)
+    not fit; the smooth route (``fft_covers_smooth7(n_fft)``) the same rule
+    with its own teams (``frames_fft.fft_smooth_max_teams``: 2 at 1200 and
+    1344, 16 frames; 4 at 896, 32 frames), first among the blocks that leave
+    room for a second on the SM (measured on the H100 at 1920/480: 8 frames
+    two blocks an SM 0.24 ms, 16 one block 0.35); the product route: ``teams
+    = 0`` and :func:`_pick_rows`'s height."""
+    route = session_route(n_fft, "encode")
     if route == "product":
         rows = _pick_rows("encode", n_fft, hop)
         return None if rows is None else (rows, 0)
@@ -478,16 +505,25 @@ def _roundtrip_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
     """``(rows, teams)`` of L's and M's launch, or None when no block fits.
     The FFT route (``fft_covers(n_fft)``): ``frames_fft.class_plan`` (rows a
     multiple of ``2 overlap``, two blocks an SM where they fit: 24 chunks and 4
-    FFTs at 1024/256); the smooth route (``fft_covers_smooth(n_fft)``)
-    ``frames_fft.class_plan_smooth`` (16 chunks and 2 FFTs at 1200/300, 56
-    and 4 at 960/240); the product route: ``teams = 0`` and
+    FFTs at 1024/256); the smooth route (:func:`session_route`'s:
+    ``fft_covers_smooth(n_fft)``, or ``fft_covers_smooth7(n_fft)`` where the
+    block fits) ``frames_fft.class_plan_smooth`` (16 chunks and 2 FFTs at
+    1200/300, 56 and 4 at 960/240); the product route: ``teams = 0`` and
     :func:`_pick_rows`'s height."""
-    route = session_route(n_fft)
+    route = session_route(n_fft, "roundtrip", hop)
     if route == "product":
         rows = _pick_rows("roundtrip", n_fft, hop)
         return None if rows is None else (rows, 0)
+    return _roundtrip_fft_plan(n_fft, hop, route == "smooth")
+
+
+@functools.lru_cache(maxsize=None)
+def _roundtrip_fft_plan(n_fft: int, hop: int, smooth: bool) -> Optional[Tuple[int, int]]:
+    """``(rows, teams)`` of L's and M's block on the FFT route
+    (``frames_fft.class_plan``) or the smooth route
+    (``frames_fft.class_plan_smooth``), or None where none fits."""
     overlap = n_fft // hop
-    plan = class_plan if route == "fft" else class_plan_smooth
+    plan = class_plan_smooth if smooth else class_plan
     return plan(n_fft, hop, lambda r, teams: _roundtrip_fft_smem_bytes(r, overlap, hop, teams))
 
 
@@ -506,7 +542,7 @@ def _decode_plan(n_fft: int, hop: int, rows: Optional[int] = None) -> Optional[T
     overlap`` at least ``rows`` (8 chunks at 1024/256 and 1200/300), with as
     many FFTs side by side as fit; the product route: ``teams = 0`` and
     :func:`_pick_rows`'s height (at most ``rows``)."""
-    route = session_route(n_fft)
+    route = session_route(n_fft, "decode")
     if route == "product":
         fit = _pick_rows("decode", n_fft, hop)
         if fit is None:
@@ -567,7 +603,7 @@ def _polish_plan(n_fft: int, hop: int, Tp: int) -> Optional[Tuple[int, bool]]:
     1200/300, a 137 KB block at 14 frames), else read from and written to
     device memory.  The rule reads the shape alone, never a failed launch."""
     ov = n_fft // hop if hop else 0
-    route = session_route(n_fft)
+    route = session_route(n_fft, "polish")
     if route == "product" or hop % 4 or n_fft % hop or not 2 <= ov <= MAX_OVERLAP or Tp < ov:
         return None
     for resident in (True, False):
@@ -663,7 +699,7 @@ def _encode_operands(window: torch.Tensor, n_fft: int):
     """What the encode reads besides the signal: on the FFT and smooth routes
     the window ``(n_fft,)`` and the twiddle table ``(2, n_fft)``, on the
     product route the window-folded basis ``(Kn, F)`` x 2."""
-    if session_route(n_fft) != "product":
+    if session_route(n_fft, "encode") != "product":
         (tw,) = _tables(fft_twiddles, window.device, n_fft)
         return window.to(torch.float32).contiguous(), tw
     return _ana_basis(window, n_fft, _k_analysis(n_fft))
@@ -709,7 +745,7 @@ def session_encode_reference(x2d, window, n_fft: int, hop: int, n_frames: int):
     and smooth routes (their schedules), else the products with the
     window-folded basis."""
     frames = frame(session_rows(x2d, n_fft, hop, n_frames), n_fft, hop)
-    route = session_route(n_fft)
+    route = session_route(n_fft, "encode")
     if route != "product":
         return frames_rfft_reference(frames, window.to(x2d.device), smooth=route == "smooth")
     WC, WS = _ana_basis(window.to(x2d.device), n_fft)
@@ -722,7 +758,7 @@ def _decode_operands(inv_window: torch.Tensor, gain: float, n_fft: int, hop: int
     ``n_fft`` (``frames_fft.irfft_window``, the smooth route's fold rounded
     once) and the twiddle table, on the product route the basis of
     :func:`_syn_basis`."""
-    route = session_route(n_fft)
+    route = session_route(n_fft, "decode")
     if route != "product":
         (tw,) = _tables(fft_twiddles, inv_window.device, n_fft)
         wsyn = irfft_window(inv_window.to(torch.float32) / gain, n_fft, route == "smooth")
@@ -758,7 +794,7 @@ def _synthesis_reference(re, im, inv_window, gain: float, n_fft: int, hop: int, 
     """The plain synthesis of the route ``n_fft`` picks (:func:`session_route`):
     :func:`_synthesize_fft` on the FFT and smooth routes (``smooth=True`` on
     the latter), else :func:`_synthesize`."""
-    route = session_route(n_fft)
+    route = session_route(n_fft, "decode")
     if route == "product":
         return _synthesize(re, im, inv_window, gain, n_fft, hop, T)
     return _synthesize_fft(re, im, inv_window, gain, n_fft, hop, T, route == "smooth")
@@ -769,12 +805,17 @@ def session_roundtrip_reference(x2d, window, inv_window, gain: float, n_fft: int
     """Plain version of kernels L (``angles=None``) and M: ``(B, n_frames *
     hop)``; M's angles ``(B, >= n_frames, F)``.  On the FFT and smooth routes
     it repeats their schedule (:func:`_roundtrip_fft_reference`), elsewhere
-    the products of :func:`session_encode_reference` and the synthesis."""
-    route = session_route(n_fft)
+    the window-folded analysis product and the synthesis.  The route is the
+    roundtrip's own (:func:`session_route` at ``(n_fft, hop)``): at 4032 with
+    overlap 4, 6, 7 or 8 the encode takes the smooth route and this the
+    products."""
+    route = session_route(n_fft, "roundtrip", hop)
     if route != "product":
         return _roundtrip_fft_reference(x2d, window, inv_window, gain, n_fft, hop, n_frames, angles,
                                         smooth=route == "smooth")
-    re, im = session_encode_reference(x2d, window, n_fft, hop, n_frames)
+    frames = frame(session_rows(x2d, n_fft, hop, n_frames), n_fft, hop)
+    WC, WS = _ana_basis(window.to(x2d.device), n_fft)
+    re, im = torch.matmul(frames, WC), torch.matmul(frames, WS)
     if angles is not None:
         a = angles[:, :n_frames]
         mag = torch.sqrt(re * re + im * im)
@@ -895,7 +936,7 @@ def rt_pghi_phases_reference(mag, angles, gamma: float, n_fft: int, hop: int, to
 def _launch_encode(x2d, ops, n_fft, hop, T, magnitude: bool = False) -> torch.Tensor:
     """R: ``(B, T, F, 2)`` interleaved ``(re, im)``; ``magnitude``: ``|X|``
     ``(B, T, F)``.  ``ops``: :func:`_encode_operands`, whose route
-    :func:`session_route` picks."""
+    :func:`session_route` picks for the encode."""
     _require("encode", n_fft, hop)
     rows, teams = _encode_plan(n_fft, hop)
     B, F = x2d.shape[0], n_fft // 2 + 1
@@ -918,7 +959,7 @@ def _launch_encode(x2d, ops, n_fft, hop, T, magnitude: bool = False) -> torch.Te
     name = "session_magnitude" if magnitude else "session_encode"
     _build.check(code, name)
     launches[name] += 1
-    routes[name + ":" + session_route(n_fft)] += 1
+    routes[name + ":" + session_route(n_fft, "encode")] += 1
     return out
 
 
@@ -991,7 +1032,7 @@ def _checked_f32(a: torch.Tensor, dev, shape, what: str) -> torch.Tensor:
 def _launch_roundtrip(x2d, angles, ops, n_fft, hop, T) -> torch.Tensor:
     """L (``angles=None``) and M: ``(B, T * hop)``.  ``ops``:
     :meth:`_Session.roundtrip_operands`, whose route :func:`session_route`
-    picks."""
+    picks for the roundtrip at ``(n_fft, hop)``."""
     _require("roundtrip", n_fft, hop)
     rows, teams = _roundtrip_plan(n_fft, hop)
     wc, ws, syn, win, wsyn, tw = ops
@@ -1008,7 +1049,7 @@ def _launch_roundtrip(x2d, angles, ops, n_fft, hop, T) -> torch.Tensor:
     name = "session_roundtrip" if angles is None else "session_random_roundtrip"
     _build.check(code, name)
     launches[name] += 1
-    routes[name + ":" + session_route(n_fft)] += 1
+    routes[name + ":" + session_route(n_fft, "roundtrip", hop)] += 1
     return out
 
 
@@ -1038,7 +1079,7 @@ def _launch_decode(mag, angles, ops, n_fft, hop, rows=None, name=None) -> torch.
     name = name or ("session_complex_decode" if angles is None else "session_random_decode")
     _build.check(code, name)
     launches[name] += 1
-    routes[name + ":" + session_route(n_fft)] += 1
+    routes[name + ":" + session_route(n_fft, "decode")] += 1
     return out
 
 
@@ -1106,7 +1147,7 @@ def gl_polish_reference(mag, phase, inv_window, window, n_fft: int, hop: int, ct
     rows = torch.arange(ctx, Tx, device=mag.device)
     upd = ((rows < keep_lo) | (rows >= keep_hi))[None, :, None]
     w = window.to(device=mag.device, dtype=torch.float32)
-    smooth = session_route(n_fft) == "smooth"
+    smooth = session_route(n_fft, "polish") == "smooth"
     ph = phase.clone()
     for _ in range(int(iters)):
         y = _synthesize_fft(mag * torch.cos(ph), mag * torch.sin(ph), inv_window, float(ov), n_fft, hop,
@@ -1134,7 +1175,7 @@ def _launch_polish(mag, phase, window, proj_syn, n_fft, hop, ctx, keep_lo, keep_
         )
     _build.check(code, "gl_polish")
     launches["gl_polish"] += 1
-    routes["gl_polish:" + session_route(n_fft)] += 1
+    routes["gl_polish:" + session_route(n_fft, "polish")] += 1
 
 
 def _launch_project_analysis(y, phase, WC, WS, n_fft, hop, Tx, ctx, keep_lo, keep_hi) -> None:
@@ -1232,7 +1273,7 @@ class _Session:
         synthesis window over the gain and ``n_fft``
         (``frames_fft.irfft_window``) and the twiddle table; on the product
         route the window-folded bases."""
-        route = session_route(self.n_fft)
+        route = session_route(self.n_fft, "roundtrip", self.hop)
         if route != "product":
             (tw,) = _tables(fft_twiddles, self.rt.window.device, self.n_fft)
             wsyn = irfft_window(self.rt.inv_window.to(torch.float32) / self.gain, self.n_fft, route == "smooth")

@@ -6,7 +6,9 @@ Usage::
 
     python -m acids_transforms_tpu_torch.tools.fft_bank_conflicts [1200 960 768 ...]
 
-For each stage of :func:`frames_fft.fft_radices` (radix ``r``, stride ``s``)
+For each stage of :func:`frames_fft.fft_radices` (radix ``r`` of 2, 3, 4, 5
+and 7: the radix-7 stages of R's and L's instances at a size with a factor
+7, 896 and 1344 among the defaults; stride ``s``)
 a warp's 32 lanes read ``x[b + k n / r]`` and write ``y[r (b - q) + q + s
 k]`` (``q = b mod s``; the last stage writes where it reads), one access per
 butterfly round ``u`` and ``k < r``, for ``re`` and for ``im`` alike.  An
@@ -75,7 +77,7 @@ def stage_conflicts(n: int) -> List[dict]:
 
 
 def main(argv: List[str]) -> int:
-    sizes = [int(a) for a in argv] or [1200, 960, 768, 400, 1920]
+    sizes = [int(a) for a in argv] or [1200, 960, 768, 400, 1920, 896, 1344]
     for n in sizes:
         print("n_fft %d: team of %d threads, radices %s" % (n, fft_smooth_team_threads(n), fft_radices(n)))
         for row in stage_conflicts(n):

@@ -29,8 +29,10 @@ measurement).  The parts:
 * ``stream``: each session route (``backend="fused"``) against the generic
   chunk scan on ``--sessions`` mono sessions of ``--session-seconds`` s of
   ``OverlapAdd + RealtimeSTFT`` at each of :data:`STREAM_SHAPES`: 1024/256
-  (chunks of 4096, the FFT route) and 1200/300 (chunks of 4800, 16 frames
-  as at 1024; the smooth route); the encode, the complex roundtrip and
+  (chunks of 4096, the FFT route), 1200/300 (chunks of 4800, 16 frames as
+  at 1024; the smooth route) and 1344/336 (chunks of 5376; the encodes and
+  the roundtrips on the smooth route's radix-7 stage, the decodes and O's
+  projections on the products); the encode, the complex roundtrip and
   decode, and the roundtrip and decode of ``random``, ``pghi``, ``pghi_gl``
   and ``sinebank``; the host's clock to the card's end, median of 3 runs
   (the generic scans are host loops).  A generic scan that took over 15 s
@@ -116,7 +118,7 @@ def admitted_routes(kind: str, wins: Dict[str, bool]) -> List[str]:
             out.append(other_route(kind) if route == "other" else route)
     return out
 #: the session sweep's shapes, (n_fft, hop, chunk): 16 frames a chunk each
-STREAM_SHAPES = [(1024, 256, 4096), (1200, 300, 4800)]
+STREAM_SHAPES = [(1024, 256, 4096), (1200, 300, 4800), (1344, 336, 5376)]
 #: the share of the card's memory a session may peak at under ``auto``
 CARD_SHARE = 0.5
 #: a generic scan slower than this at one batch is not run at the next

@@ -66,7 +66,9 @@ have two routes, picked by n_fft alone: a shared-memory FFT
 for the syntheses of C, D, I, J, L, M, K, P, S and O) at a power of two
 from 64 to 4096, the window-folded products elsewhere (R, L, M, P, S,
 O's synthesis, E, F, G, H, J, C, D, I and K's synthesis take a third route,
-the mixed-radix FFT, at even 5-smooth n_fft); so do the log-mel
+the mixed-radix FFT, at even 5-smooth n_fft; R, the magnitude encode, L and
+M also at even 7-smooth n_fft with a factor 7, on their radix-7 instances,
+the roundtrips where their block fits); so do the log-mel
 forward and fit (A and B: E's and F's FFT and smooth instances under the
 taps' own window, the factored front end elsewhere), the representations' forward
 and fit statistics with taps (G and H: G and H full-K's FFT and smooth
@@ -82,10 +84,11 @@ under hann, hamming and blackman) and against a float64 oracle at 1024, 512,
 2048 and 4096 (C, D, I, K, G, H, P, S and O's synthesis at every power of
 two from 64), the factored route at 896/224 (A, B, G, H), and
 the product route at 896/224 (E, F, G, H, J, C, D, I, K),
-8192/2048 (J) and 1344/336 (R, L, M, P, S, O's synthesis), and the smooth
-route of R, L, M, P, S, O's synthesis and O's polish (the mixed-radix FFT)
-at 1200/300, 960/240, 768/192, 400/100 and 1920/480, bit-identical to its
-plain version, of E and F (A and B under hann and blackman taps) at
+8192/2048 (J), 1344/336 (P, S, O's synthesis) and 1408/352 (R, L, M, P),
+and the smooth route of R, L, M, P, S, O's synthesis and O's polish (the
+mixed-radix FFT) at 1200/300, 960/240, 768/192, 400/100 and 1920/480, and
+of R, the magnitude encode, L and M (its radix-7 instances) at 1344/336
+and 896/224, bit-identical to its plain version, of E and F (A and B under hann and blackman taps) at
 768/256, 768/192, 640/160, 384/96, 1536/384, 1920/480 and 3072/768 (|X| and
 the extrema bit-identical, the mel product's and the sums' order aside), of
 J, C, D and I at those seven framings (bit-identical, D to four C, every
@@ -101,8 +104,10 @@ drives the smooth, product and factored routes through the entry points
 (1200/300 sessions: R, L, M, the magnitude encode, the decodes and, in
 ``pghi_gl``, O's polish on the smooth route, one launch a chunk; a 3072/768
 ``pghi_gl`` grid of 3 + 40 + 3 frames, which no polish block holds, on the
-two-launch projection; 1344/336 sessions: R, L, M, the magnitude encode and
-the decodes on the product route; ``STFT(1200, 300)`` and ``DGT(768, 256)``
+two-launch projection; 1344/336 sessions: R, L, M and the magnitude encode
+on the smooth route's radix-7 instances, the decodes on the product route;
+1408/352 sessions: R, L, M and the magnitude encode on the product route;
+``STFT(1200, 300)`` and ``DGT(768, 256)``
 ``pghi`` inverts: K's synthesis on the smooth route, ``DGT(896, 224)`` on
 the product route; STFT(768, 192) and STFT(896, 224)
 Griffin-Lim inverts (C, D on the smooth, then the product route),
@@ -173,6 +178,11 @@ SMOOTH_SHAPES = ((768, 256), (768, 192), (640, 160), (384, 96), (1536, 384), (19
 # the session framings of the smooth route (R, L, M, the decodes, O's polish):
 # 2^4 3 5^2, 2^6 3 5, 2^8 3, 2^4 5^2, 2^7 3 5 at overlap 4
 SESSION_SMOOTH_SHAPES = ((1200, 300), (960, 240), (768, 192), (400, 100), (1920, 480))
+# the framings of R's and L's radix-7 instances whose plans phase 5 sweeps:
+# 2^7 7, 2^6 3 7, 2^8 7, 2^4 3 5 7 at overlap 4
+SEVEN_SHAPES = ((896, 224), (1344, 336), (1792, 448), (1680, 420))
+# the kernels with a radix-7 instance (R, the magnitude encode, L, M), by their launch counters' names
+SEVEN_KERNELS = ("session_encode", "session_magnitude", "session_roundtrip", "session_random_roundtrip")
 
 
 def log(msg: str) -> None:
@@ -225,6 +235,77 @@ def smooth_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
             del y_pick
     finally:
         spectral._kernel_plan = rule
+    return out
+
+
+def seven_plan_sweep(sx: torch.Tensor, repeats: int) -> dict:
+    """R and L / M on the smooth route's radix-7 instances at each of
+    SEVEN_SHAPES under every plan the kernels take (R: 2 to 64 frames a
+    block x 1, 2, 4 ... FFTs side by side; L / M: a multiple of 2 overlap
+    chunks up to 64 x as many FFTs; each up to the route's teams and within
+    shared memory), on ``sx``'s sessions in chunks of 8 frames, the card's
+    time a call back to back (device_ms); every plan's output must be
+    bit-identical to the rule's (a block's frame pairs are the session's).
+    Returns per shape the rows, the rule's picks and the fastest plans."""
+    from acids_transforms_tpu_torch import transforms as T
+    from acids_transforms_tpu_torch.ops.cuda import frames_fft as ff, stream_step as ss
+
+    rule_e, rule_r = ss._encode_plan, ss._roundtrip_plan
+    out = {}
+    try:
+        for n_fft, hop in SEVEN_SHAPES:
+            ov, Tn = n_fft // hop, -(-sx.shape[-1] // (8 * hop)) * 8
+            chain = T.OverlapAdd(n_fft, hop) + T.RealtimeSTFT(n_fft=n_fft, hop_length=hop)
+            e_ops = ss._encode_operands(chain[1].window, n_fft)
+            r_ops = ss._Session(chain, 8).roundtrip_operands()
+            ang = 2 * math.pi * torch.rand((sx.shape[0], Tn, n_fft // 2 + 1), device=sx.device,
+                                           generator=torch.Generator(device=sx.device).manual_seed(n_fft))
+
+            def enc():
+                return ss._launch_encode(sx, e_ops, n_fft, hop, Tn)
+
+            def rt_l():
+                return ss._launch_roundtrip(sx, None, r_ops, n_fft, hop, Tn)
+
+            def rt_m():
+                return ss._launch_roundtrip(sx, ang, r_ops, n_fft, hop, Tn)
+            pick_e, pick_r = rule_e(n_fft, hop), rule_r(n_fft, hop)
+            ref_e, ref_l, ref_m = enc(), rt_l(), rt_m()
+            e_rows, r_rows, teams = [], [], 1
+            while teams <= ff.fft_smooth_max_teams(n_fft):
+                for rows in (2, 4, 8, 16, 32, 64):
+                    smem = ss._encode_fft_smem_bytes(rows, hop, n_fft, teams)
+                    if smem > ff.MAX_SMEM:
+                        break
+                    ss._encode_plan = lambda *a, p=(rows, teams): p
+                    require(torch.equal(enc(), ref_e), f"R {n_fft}/{hop}: plan {(rows, teams)} changes the output")
+                    e_rows.append(dict(rows=rows, teams=teams, smem_kb=smem / 1024.0,
+                                       blocks=min(2, ff.SM_SMEM // (smem + 1024)), ms=device_ms(enc, repeats)))
+                    ss._encode_plan = rule_e
+                for rows in range(2 * ov, 65, 2 * ov):
+                    smem = ss._roundtrip_fft_smem_bytes(rows, ov, hop, teams)
+                    if smem > ff.MAX_SMEM:
+                        break
+                    ss._roundtrip_plan = lambda *a, p=(rows, teams): p
+                    require(torch.equal(rt_l(), ref_l) and torch.equal(rt_m(), ref_m),
+                            f"L / M {n_fft}/{hop}: plan {(rows, teams)} changes the output")
+                    r_rows.append(dict(rows=rows, teams=teams, smem_kb=smem / 1024.0,
+                                       blocks=min(2, ff.SM_SMEM // (smem + 1024)), l_ms=device_ms(rt_l, repeats),
+                                       m_ms=device_ms(rt_m, repeats)))
+                    ss._roundtrip_plan = rule_r
+                teams *= 2
+            best_e = min(e_rows, key=lambda r: r["ms"])
+            best_r = min(r_rows, key=lambda r: r["l_ms"] + r["m_ms"])
+            mine_e = next(r for r in e_rows if (r["rows"], r["teams"]) == pick_e)
+            mine_r = next(r for r in r_rows if (r["rows"], r["teams"]) == pick_r)
+            out[f"{n_fft}/{hop}"] = dict(
+                encode=e_rows, roundtrip=r_rows, frames=Tn, pick_e=pick_e, pick_r=pick_r,
+                best_e=(best_e["rows"], best_e["teams"]), best_r=(best_r["rows"], best_r["teams"]),
+                over_e=mine_e["ms"] / best_e["ms"] - 1.0,
+                over_r=(mine_r["l_ms"] + mine_r["m_ms"]) / (best_r["l_ms"] + best_r["m_ms"]) - 1.0)
+            del ref_e, ref_l, ref_m
+    finally:
+        ss._encode_plan, ss._roundtrip_plan = rule_e, rule_r
     return out
 
 
@@ -597,6 +678,40 @@ def k_polish_smooth_resources(res: dict) -> dict:
             out["O resident"] = v
         elif "gl_polish_fft_kernelILb0ELb1EE" in k:
             out["O device"] = v
+    return out
+
+
+def session_seven_resources(res: dict) -> dict:
+    """The build log's resources of R's, the magnitude encode's, L's and M's
+    radix-7 instances (``session_encode_kernel<kMag, true, true, true>``,
+    ``session_roundtrip_fft_kernel<kRandom, true, true>``), by the labels
+    ``R``, ``N``, ``L``, ``M``."""
+    out = {}
+    for k, v in res.items():
+        for kern, label in (("session_encode_kernelILb0ELb1ELb1ELb1EE", "R"),
+                            ("session_encode_kernelILb1ELb1ELb1ELb1EE", "N"),
+                            ("session_roundtrip_fft_kernelILb0ELb1ELb1EE", "L"),
+                            ("session_roundtrip_fft_kernelILb1ELb1ELb1EE", "M")):
+            if kern in k:
+                out[label] = v
+    return out
+
+
+def smooth_instance_resources(res: dict) -> dict:
+    """The build log's resources of every mixed-radix instance of every
+    kernel, by its mangled name: the sessions' (encode, roundtrip, decode,
+    polish; their kSmooth argument true), E's and F's, G's and H's, the
+    Griffin-Lim steps' and K's synthesis's."""
+    out = dict(melspec_smooth_resources(res))
+    out.update({k: v for k, v in res.items() if ("repr_forward_kernel" in k or "repr_stats_kernel" in k)
+                and "Li3E" in k})
+    out.update(gl_smooth_resources(res))
+    for k, v in res.items():
+        if ("pghi_synthesize_fft_kernelILb1EE" in k or "gl_polish_fft_kernelIL" in k and "ELb1EE" in k
+                or "session_decode_fft_kernelIL" in k and "ELb1EE" in k
+                or "session_encode_kernelILb" in k and ("ELb1ELb1ELb0EE" in k or "ELb1ELb1ELb1EE" in k)
+                or "session_roundtrip_fft_kernelIL" in k and ("ELb1ELb0EE" in k or "ELb1ELb1EE" in k)):
+            out[k] = v
     return out
 
 
@@ -1127,7 +1242,7 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     def others():
         return sum(sum(w.launches.values()) for w in other_wrappers)
 
-    def route(label, fn, expect, main=True, front="fft"):
+    def route(label, fn, expect, main=True, front="fft", seven=False):
         """One run through the entry point, counters at 0 before and read
         after; the main routes' launches go into the kernels line.  Every
         launch of the encode (R, the magnitude encode), of the roundtrips (L,
@@ -1135,7 +1250,9 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         power-of-two n_fft, "smooth" (every one of them at an even 5-smooth
         n_fft) or "product"; a dict names the route kernel by
         kernel ("fft" for those it leaves out).  The smooth and the product
-        routes' launches are counted for their rows (4h)."""
+        routes' launches are counted for their rows (4h); ``seven``: the
+        smooth launches are the radix-7 instances' (an n_fft with a factor
+        7), counted as ``<kernel>:smooth7`` for their rows."""
         zero_all()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1154,7 +1271,7 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         for k, v in got.items():
             counts[k] += v if main else 0
         for k, v in fronts.items():
-            counts[k] += v if main or not k.endswith(":fft") else 0
+            counts[k + ("7" if seven and k.endswith(":smooth") else "")] += v if main or not k.endswith(":fft") else 0
         return out
 
     def generic(label, fn):
@@ -1186,7 +1303,7 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         ref, out = x[..., : SL - delay - 2048], y[..., delay: SL - 2048]
         return 10 * math.log10((ref ** 2).sum().item() / max(((out - ref) ** 2).sum().item(), 1e-300))
 
-    for k in list(ss.launches) + list(ss.routes):
+    for k in list(ss.launches) + list(ss.routes) + [k + ":smooth7" for k in SEVEN_KERNELS]:
         counts[k] = 0
     sc_of = make_sc(sx)
     # encode
@@ -1312,9 +1429,11 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         }
         torch.cuda.synchronize()
         fft = ff.fft_covers(n_fft)
-        front = ss.session_route(n_fft)
+        fronts = {"R": ss.session_route(n_fft, "encode"), "L": ss.session_route(n_fft, "roundtrip", hop),
+                  "M": ss.session_route(n_fft, "roundtrip", hop), "P": ss.session_route(n_fft, "decode")}
         msg = []
         for key, (k_out, p_out) in pairs.items():
+            front = fronts[key]
             e = rel_err(k_out, p_out)
             tol = 1e-6 if fft and key in ("L", "M", "P") else 2e-5
             same = torch.equal(k_out, p_out)
@@ -1330,9 +1449,9 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
                 require(e_o <= 1e-5, f"{key} {label} disagrees with the float64 oracle")
                 del o
             if front != "fft":
-                key += "_" + front
+                key += "_" + front + ("7" if front == "smooth" and n_fft % 7 == 0 else "")
             errs[key] = max(errs.get(key, 0.0), abs_err(k_out, p_out))
-        log(f"  kernels vs plain, {label} ({front} route of R, L, M and P; blocks: encode "
+        log(f"  kernels vs plain, {label} (routes {fronts}; blocks: encode "
             f"{ss._encode_plan(n_fft, hop)}, roundtrip {ss._roundtrip_plan(n_fft, hop)}, decode "
             f"{ss._decode_plan(n_fft, hop)} as (rows, FFTs)): rel {', '.join(msg)}")
 
@@ -1340,11 +1459,25 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     check_kernels("512/128, 3 x 20000 (ragged)", 512, 128, sx[:3, :20000].contiguous(), 2048)
     check_kernels("2048/512, 2 x 30000 (ragged)", 2048, 512, sx[:2, :30000].contiguous(), 4096)
     # the smooth route (R, L, M, P) at five shapes users frame audio in at
-    # 48 kHz (25, 20, 16, 8.3 and 40 ms); the product route of R, L, M and P
-    # at 1344/336 (2^6 3 7)
+    # 48 kHz (25, 20, 16, 8.3 and 40 ms); the radix-7 instances of R, L and M
+    # at 1344/336 (2^6 3 7: 28 ms at 48 kHz) and 896/224 (2^7 7: 56 ms at 16
+    # kHz), bit-identical to their plain versions, P on its product route
+    # there, and at 1764/588 (2^2 3^2 7^2, 40 ms at 44.1 kHz, overlap 3); the
+    # radix-7 instances at every other overlap the roundtrip gate takes:
+    # 4032/2016 (overlap 2), 1680/336 (5), 1344/224 (6), 3528/504 (7: two
+    # sevens) and 1344/168 (8), each L and M against the float64 oracle under
+    # the chain's own gain (overlap); the product route of R, L, M and P at
+    # 1408/352 (2^7 11)
     for n_s, hop_s in ((1200, 300), (960, 240), (768, 192), (400, 100), (1920, 480)):
         check_kernels(f"{n_s}/{hop_s}, 4 x 40000 (ragged)", n_s, hop_s, sx[:4, :40000].contiguous(), 2 * n_s)
     check_kernels("1344/336, 4 x 40000 (ragged)", 1344, 336, sx[:4, :40000].contiguous(), 2688)
+    check_kernels("896/224, 4 x 40000 (ragged)", 896, 224, sx[:4, :40000].contiguous(), 1792)
+    check_kernels("1764/588, 3 x 40000 (ragged)", 1764, 588, sx[:3, :40000].contiguous(), 3528)
+    for n_s, hop_s in ((4032, 2016), (1680, 336), (1344, 224), (3528, 504), (1344, 168)):
+        require(ss.session_route(n_s, "encode") == ss.session_route(n_s, "roundtrip", hop_s) == "smooth",
+                f"{n_s}/{hop_s}: R, L and M must take the radix-7 instances")
+        check_kernels(f"{n_s}/{hop_s}, 3 x 40000 (ragged)", n_s, hop_s, sx[:3, :40000].contiguous(), 2 * n_s)
+    check_kernels("1408/352, 4 x 40000 (ragged)", 1408, 352, sx[:4, :40000].contiguous(), 2816)
 
     # P, S and O's projection synthesis by route: the FFT route at every power
     # of two it takes (hop n_fft / 4), on magnitudes with phases up to 1e3 rad
@@ -1359,7 +1492,7 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     # products in another order than cuBLAS) and the oracle
     def check_decode_routes(n_fft, hop, B=3, T=45):
         Fb, ov = n_fft // 2 + 1, n_fft // hop
-        front = ss.session_route(n_fft)
+        front = ss.session_route(n_fft, "decode")
         fft = front != "product"
         g = sgen(n_fft + hop)
         mag = torch.rand((B, T, Fb), generator=g, device=dev)
@@ -1422,12 +1555,13 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     # otherwise) and against the float64 oracle (torch.fft.rfft of the
     # windowed frames in float64: float32 FFT sums, within 1e-5 of the largest
     # magnitude); the smooth route at 1200/300, 960/240, 768/192, 400/100 and
-    # 1920/480 bit-identical to its plain version; the product route at
-    # 1344/336 against its plain version at the product's 2e-5
+    # 1920/480, and its radix-7 instance at 1344/336 and 896/224,
+    # bit-identical to its plain version; the product route at 1408/352
+    # against its plain version at the product's 2e-5
     def check_encode_routes(label, n_fft, hop, x, n_frames):
         w = torch.hann_window(n_fft, device=dev)
         ops = ss._encode_operands(w, n_fft)
-        front = ss.session_route(n_fft)
+        front = ss.session_route(n_fft, "encode")
         fft = front != "product"
         ss.reset_launches()
         spec = ss._launch_encode(x, ops, n_fft, hop, n_frames)
@@ -1450,7 +1584,7 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         require(torch.isfinite(spec).all().item() and torch.isfinite(mag).all().item(), f"{label}: not finite")
         require(e_r <= tol and e_m <= tol and o_r <= 1e-5 and o_m <= 1e-5, f"R {label}: out of budget")
         require(bit or front != "smooth", f"R {label}: the smooth route is not bit-identical to its plain version")
-        key = "" if front == "fft" else "_" + front
+        key = "" if front == "fft" else "_" + front + ("7" if front == "smooth" and n_fft % 7 == 0 else "")
         errs["R" + key] = max(errs.get("R" + key, 0.0), abs_err(spec, plain))
         errs["Rmag" + key] = max(errs.get("Rmag" + key, 0.0), abs_err(mag, torch.sqrt(re * re + im * im)))
 
@@ -1463,6 +1597,9 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     check_encode_routes("400/100, 4 x 40000 (odd: 401 frames)", 400, 100, sx[:4, :40000].contiguous(), 401)
     check_encode_routes("1920/480, 4 x 40000 (odd: 85 frames)", 1920, 480, sx[:4, :40000].contiguous(), 85)
     check_encode_routes("1344/336, 4 x 40000 (odd: 121 frames)", 1344, 336, sx[:4, :40000].contiguous(), 121)
+    check_encode_routes("896/224, 4 x 40000 (odd: 181 frames)", 896, 224, sx[:4, :40000].contiguous(), 181)
+    check_encode_routes("1764/588, 3 x 40000 (odd: 69 frames)", 1764, 588, sx[:3, :40000].contiguous(), 69)
+    check_encode_routes("1408/352, 4 x 40000 (odd: 115 frames)", 1408, 352, sx[:4, :40000].contiguous(), 115)
     ss.reset_launches()
     torch.cuda.empty_cache()
 
@@ -2007,8 +2144,12 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
       synthesis on the smooth route: the counts of O's smooth synthesis and
       of its analysis.  The same sessions at
       1344/336 (2^6 3 7), the complex decode and ``pghi_gl`` among them, run
-      R, L, M, the magnitude encode and the decodes on the product route:
-      those rows' counts.
+      R, L, M and the magnitude encode on the smooth route's radix-7
+      instances (those rows' counts) and the decodes and O's projections on
+      the product route (theirs), all within 1e-4 of the generic scan or by
+      spectral convergence against it; at 1408/352 (2^7 11) the complex and
+      random roundtrips, the encode and the ``pghi`` roundtrip run R, L, M
+      and the magnitude encode on the product route: those rows' counts.
     * E and F on the smooth route through the entry points: the DGT
       magnitude chain at 768/256 (``fuse_fit`` + ``fuse_forward`` on up to 16
       clips), its fit and forward within 1e-5 / 1e-4 of the eager chain's, as
@@ -2193,7 +2334,7 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     chain_t = T.OverlapAdd(n_t, hop_t) + T.RealtimeSTFT(n_fft=n_t, hop_length=hop_t, inversion_mode="pghi_gl")
     n_cht, iters_t = xs_t.shape[-1] // chunk_t, chain_t[1].gl_iterations
     tp_t = chain_t[1].gl_context + tc_t + n_t // hop_t - 1
-    require(stream["ss"].session_route(n_t) == "smooth" and stream["ss"]._polish_plan(n_t, hop_t, tp_t) is None
+    require(stream["ss"].session_route(n_t, "polish") == "smooth" and stream["ss"]._polish_plan(n_t, hop_t, tp_t) is None
             and stream["ss"].kernel_covers("project", n_t, hop_t, tc_t, chain_t[1].gl_context),
             f"{n_t}/{hop_t}: the polish must refuse the {tp_t}-frame grid and the two-launch route take it")
     w_t = torch.hann_window(n_t, device=dev)
@@ -2219,19 +2360,23 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     counts["gl_project_analysis"] += n_cht * iters_t          # O's analysis row counts these
     del y_t, y_tg
 
-    # R, L, M, the magnitude encode and the decodes on the product route: the
-    # same sessions at 1344/336 (2^6 3 7: neither the FFT nor the smooth route)
+    # R, L, M and the magnitude encode on the smooth route's radix-7
+    # instances, the decodes and O's projections on the product route: the
+    # same sessions at 1344/336 (2^6 3 7: 28 ms at 48 kHz)
     n_x, hop_x, chunk_x = 1344, 336, 2688
     xs_x = mono[:4, :8 * chunk_x].contiguous()
     chain_x = T.OverlapAdd(n_x, hop_x) + T.RealtimeSTFT(n_fft=n_x, hop_length=hop_x)
     c_px = T.OverlapAdd(n_x, hop_x, device="cpu") + T.RealtimeSTFT(n_fft=n_x, hop_length=hop_x, device="cpu")
-    require(stream["ss"].session_route(n_x) == "product", "1344/336 must take the product route")
-    y_x = route("1344/336 complex roundtrip (the product route)",
+    ssx = stream["ss"]
+    require(ssx.session_route(n_x, "encode") == "smooth" and ssx.session_route(n_x, "roundtrip", hop_x) == "smooth"
+            and ssx.session_route(n_x, "decode") == "product",
+            "1344/336: the encodes and the roundtrips must take the smooth route, the decodes the product")
+    y_x = route("1344/336 complex roundtrip (the smooth route, radix 7)",
                 lambda: streaming.scan_roundtrip(chain_x, xs_x, chunk_x), {"session_roundtrip": 1}, main=False,
-                front="product")
-    f_x, _ = route("1344/336 encode: scan_forward (the product route)",
+                front="smooth", seven=True)
+    f_x, _ = route("1344/336 encode: scan_forward (the smooth route, radix 7)",
                    lambda: streaming.scan_forward(chain_x, xs_x, chunk_x), {"session_encode": 1}, main=False,
-                   front="product")
+                   front="smooth", seven=True)
     e_fx = crel(f_x.cpu(), streaming.scan_forward(c_px, xs_x.cpu(), chunk_x)[0])
     e_yx = rel_err(y_x.cpu(), streaming.scan_roundtrip(c_px, xs_x.cpu(), chunk_x))
     snr_x = snr_db_of(xs_x, y_x, n_x, hop_x, chunk_x)
@@ -2245,9 +2390,9 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     log(f"    the session vs the CPU's generic scan: rel {e_sx:.3e} (tol 1e-04)")
     require(torch.isfinite(y_sx).all().item() and e_sx <= 1e-4,
             "1344/336 complex decode: the session differs from the generic scan")
-    y_mx = route("1344/336 random roundtrip (the product route)",
+    y_mx = route("1344/336 random roundtrip (the smooth route, radix 7)",
                  lambda: streaming.scan_roundtrip(chain_x, xs_x, chunk_x, "random", generator=sgen(155)),
-                 {"session_random_roundtrip": 1}, main=False, front="product")
+                 {"session_random_roundtrip": 1}, main=False, front="smooth", seven=True)
     e_mx = rel_err(y_mx, generic("1344/336 random generic", lambda: streaming.scan_roundtrip(
         chain_x, xs_x, chunk_x, "random", generator=sgen(155), backend="generic")))
     log(f"    the session vs the generic scan (same seed): rel {e_mx:.3e} (tol 1e-04)")
@@ -2270,9 +2415,11 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     ):
         require(streaming.plan_roundtrip(chain_x, tuple(xs_x.shape), chunk_x, mode, device=dev) == mode,
                 f"1344/336 {mode}: must plan the session")
-        y_kx = route(f"1344/336 {mode} roundtrip (the product route)",
+        y_kx = route(f"1344/336 {mode} roundtrip (the magnitude encode on the smooth route, radix 7; the "
+                     "decode on the product)",
                      lambda: streaming.scan_roundtrip(chain_x, xs_x, chunk_x, mode, generator=sgen(156)), expect,
-                     main=False, front="product")
+                     main=False, front={"session_magnitude": "smooth", "session_random_decode": "product",
+                                        "gl_project_synthesis": "product"}, seven=True)
         y_gx = generic(f"1344/336 {mode} generic", lambda: streaming.scan_roundtrip(
             chain_x, xs_x, chunk_x, mode, generator=sgen(156), backend="generic"))
         s_k, s_g = sc_x(y_kx), sc_x(y_gx)
@@ -2282,6 +2429,58 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
         if mode == "pghi_gl":       # the two-launch polish: O's analysis row counts these
             counts["gl_project_analysis"] += n_chx * iters_x
     del y_x, f_x, y_mx, y_kx, y_gx, y_sx
+
+    # R, L, M and the magnitude encode on the product route: the sessions at
+    # 1408/352 (2^7 11: no route but the products), the encode and the
+    # complex roundtrip against the CPU's generic scan (1e-4, SNR >= 100 dB),
+    # the random roundtrip against the card's (1e-4, same seed), the pghi
+    # roundtrip by spectral convergence
+    n_y, hop_y, chunk_y = 1408, 352, 2816
+    xs_y = mono[:4, :8 * chunk_y].contiguous()
+    chain_y = T.OverlapAdd(n_y, hop_y) + T.RealtimeSTFT(n_fft=n_y, hop_length=hop_y)
+    c_py = T.OverlapAdd(n_y, hop_y, device="cpu") + T.RealtimeSTFT(n_fft=n_y, hop_length=hop_y, device="cpu")
+    require(ssx.session_route(n_y, "encode") == ssx.session_route(n_y, "roundtrip", hop_y)
+            == ssx.session_route(n_y, "decode") == "product", "1408/352 must take the product route")
+    y_y = route("1408/352 complex roundtrip (the product route)",
+                lambda: streaming.scan_roundtrip(chain_y, xs_y, chunk_y), {"session_roundtrip": 1}, main=False,
+                front="product")
+    f_y, _ = route("1408/352 encode: scan_forward (the product route)",
+                   lambda: streaming.scan_forward(chain_y, xs_y, chunk_y), {"session_encode": 1}, main=False,
+                   front="product")
+    e_fy = crel(f_y.cpu(), streaming.scan_forward(c_py, xs_y.cpu(), chunk_y)[0])
+    e_yy = rel_err(y_y.cpu(), streaming.scan_roundtrip(c_py, xs_y.cpu(), chunk_y))
+    snr_y = snr_db_of(xs_y, y_y, n_y, hop_y, chunk_y)
+    log(f"    the sessions vs the CPU's generic scan: encode rel {e_fy:.3e}, complex roundtrip rel {e_yy:.3e} (tol "
+        f"1e-04); SNR after the delay {snr_y:.2f} dB (must be >= 100)")
+    require(e_fy <= 1e-4 and e_yy <= 1e-4 and snr_y >= 100.0, "1408/352: the sessions differ from the generic scan")
+    y_my = route("1408/352 random roundtrip (the product route)",
+                 lambda: streaming.scan_roundtrip(chain_y, xs_y, chunk_y, "random", generator=sgen(159)),
+                 {"session_random_roundtrip": 1}, main=False, front="product")
+    e_my = rel_err(y_my, generic("1408/352 random generic", lambda: streaming.scan_roundtrip(
+        chain_y, xs_y, chunk_y, "random", generator=sgen(159), backend="generic")))
+    log(f"    the session vs the generic scan (same seed): rel {e_my:.3e} (tol 1e-04)")
+    require(torch.isfinite(y_my).all().item() and e_my <= 1e-4, "1408/352 random roundtrip: differs from the scan")
+    w_y = torch.hann_window(n_y, device=dev)
+
+    def sc_y(y):
+        d, n = n_y - hop_y, xs_y.shape[-1]
+
+        def spec(v):
+            return torch.stft(v, n_y, hop_y, window=w_y, center=True, pad_mode="reflect", return_complex=True).abs()
+        ref, m = spec(xs_y[..., : n - d]), spec(y[..., d:n])
+        k = min(m.shape[-1], ref.shape[-1]) - 2
+        return (torch.linalg.norm(m[..., 2:k] - ref[..., 2:k]) / torch.linalg.norm(ref[..., 2:k])).item()
+    y_ky = route("1408/352 pghi roundtrip (the product route)",
+                 lambda: streaming.scan_roundtrip(chain_y, xs_y, chunk_y, "pghi", generator=sgen(160)),
+                 {"session_magnitude": 1, "rt_pghi_phases": 1, "session_random_decode": 1}, main=False,
+                 front="product")
+    y_gy = generic("1408/352 pghi generic", lambda: streaming.scan_roundtrip(
+        chain_y, xs_y, chunk_y, "pghi", generator=sgen(160), backend="generic"))
+    s_k, s_g = sc_y(y_ky), sc_y(y_gy)
+    log(f"    vs the generic scan: spectral convergence {s_k:.5f} / {s_g:.5f} (must be <= {1.1 * s_g + 1e-3:.5f})")
+    require(y_ky.shape == y_gy.shape and torch.isfinite(y_ky).all().item() and s_k <= 1.1 * s_g + 1e-3,
+            "1408/352 pghi: the session converges worse than the generic scan")
+    del y_y, f_y, y_my, y_ky, y_gy
 
     # C and D through the Griffin-Lim invert of an STFT(n_fft, hop, hann) on 16
     # clips (7 D + 2 C), converging like the eager loop from the same seed:
@@ -3763,7 +3962,7 @@ def main() -> int:
         (rows_e, teams_e), (rows_r, teams_r) = ss._encode_plan(n_fft_s, hop_s), ss._roundtrip_plan(n_fft_s, hop_s)
         plans_d = [ss._decode_plan(n_fft_s, hop_s, narrow) for narrow in (None, ss.PROJECT_SYN_ROWS)]
         require(teams_e > 0 and teams_r > 0 and all(tm > 0 for _, tm in plans_d)
-                and ss.session_route(n_fft_s) == "smooth",
+                and ss.session_route(n_fft_s, "decode") == "smooth",
                 f"{n_fft_s}/{hop_s}: the encode, the roundtrip and the decode must take the smooth route")
         for tm in sorted({1, teams_e}):
             require(lib.att_session_encode_fft_smem_bytes(rows_e, hop_s, n_fft_s, tm)
@@ -3776,6 +3975,49 @@ def main() -> int:
                 require(lib.att_session_decode_fft_smem_bytes(rows_d, hop_s, n_fft_s, tm)
                         == ss._decode_fft_smem_bytes(rows_d, hop_s, n_fft_s, tm) <= ff.MAX_SMEM,
                         f"{n_fft_s}/{hop_s}: the decode's smooth shared-memory size: wrapper and source disagree")
+    # R / the magnitude encode and L / M on the smooth route's radix-7
+    # instances: every even 7-smooth n_fft with a factor 7 from 64 to 4096 at
+    # every overlap the gates take (hop a multiple of 4), the layouts at the
+    # plans' team counts and one team, the roundtrip on the product route
+    # where its smooth block does not fit (4032 at overlap 4, 6, 7, 8); the
+    # four instances' registers (at most 128: two blocks an SM) and spill
+    n_seven = n_seven_product = 0
+    for n_fft_s in [n for n in range(64, 4097, 2) if ff.fft_covers_smooth7(n) and not ff.fft_covers_smooth(n)]:
+        for ov_s in range(2, 9):
+            if n_fft_s % ov_s or (n_fft_s // ov_s) % 4:
+                continue
+            hop_s = n_fft_s // ov_s
+            (rows_e, teams_e), (rows_r, teams_r) = ss._encode_plan(n_fft_s, hop_s), ss._roundtrip_plan(n_fft_s, hop_s)
+            route_r = ss.session_route(n_fft_s, "roundtrip", hop_s)
+            require(teams_e > 0 and ss.session_route(n_fft_s, "encode") == "smooth"
+                    and (teams_r > 0) == (route_r == "smooth") and ss.session_route(n_fft_s, "decode") == "product",
+                    f"{n_fft_s}/{hop_s}: the encode and the roundtrip must take the smooth route, the decode the "
+                    "product")
+            n_seven_product += route_r == "product"
+            for tm in sorted({1, teams_e}):
+                require(lib.att_session_encode_fft_smem_bytes(rows_e, hop_s, n_fft_s, tm)
+                        == ss._encode_fft_smem_bytes(rows_e, hop_s, n_fft_s, tm),
+                        f"{n_fft_s}/{hop_s}: the encode's radix-7 shared-memory size: wrapper and source disagree")
+            require(ss._encode_fft_smem_bytes(rows_e, hop_s, n_fft_s, teams_e) <= ff.MAX_SMEM,
+                    f"{n_fft_s}/{hop_s}: the encode's radix-7 plan exceeds shared memory")
+            if teams_r:
+                for tm in sorted({1, teams_r}):
+                    require(lib.att_session_roundtrip_fft_smem_bytes(rows_r, ov_s, hop_s, tm)
+                            == ss._roundtrip_fft_smem_bytes(rows_r, ov_s, hop_s, tm),
+                            f"{n_fft_s}/{hop_s}: the roundtrip's radix-7 shared-memory size: wrapper and source "
+                            "disagree")
+            n_seven += 1
+    seven_res = session_seven_resources(_build.kernel_resources())
+    for name, res in seven_res.items():
+        log(f"    {name} radix-7 instance: {res['registers']} registers, spill stores / loads "
+            f"{res.get('spill_stores', 0)} / {res.get('spill_loads', 0)} B")
+    require(set(seven_res) == {"R", "N", "L", "M"} and all(r["registers"] <= 128 for r in seven_res.values()),
+            f"the radix-7 instances: R, N's encode, L and M, at most 128 registers (found {sorted(seven_res)})")
+    log(f"    the radix-7 instances: plans and shared-memory sizes agree at {n_seven} shapes, {n_seven_product} "
+        f"roundtrips on the product route (encode / roundtrip at 1344/336 {ss._encode_plan(1344, 336)} / "
+        f"{ss._roundtrip_plan(1344, 336)}, 896/224 {ss._encode_plan(896, 224)} / {ss._roundtrip_plan(896, 224)} as "
+        "(rows, FFTs))")
+    require(n_seven == 199 and n_seven_product == 4, "the radix-7 route: 199 shapes, 4 roundtrips on the product")
     # E / F (and A / B) on the smooth route: every shape the route takes
     # (hop a multiple of 32, overlap 2 to 8), the plan's layout and the
     # other tiles at its team count and one team
@@ -4082,7 +4324,7 @@ def main() -> int:
         lo, hi = rt.gl_frozen(T_c)
         syn = ss._decode_operands(rt.inv_window, float(ov), n_fft, hop)
         plan = ss._polish_plan(n_fft, hop, tp)
-        route = ss.session_route(n_fft)
+        route = ss.session_route(n_fft, "polish")
         require(plan is not None, f"the polish must take {n_fft}/{hop} at {tp} grid frames")
         worst = 0.0
         for iters in (4, 16):
@@ -5261,10 +5503,10 @@ def main() -> int:
     def smooth_design_flops(n, frames):
         """Operations the mixed-radix frames_rfft (fft_smem.cuh, kSmooth)
         does for `frames` frames of n points, two a pair: the window (2 n),
-        per butterfly of radix 5 / 3 / 4 / 2 48 / 16 / 16 / 4 operations and
+        per butterfly of radix 7 / 5 / 3 / 4 / 2 96 / 48 / 16 / 16 / 4 operations and
         6 a twiddle (r - 1 of them, none in the last stage), the split (8 a
         bin)."""
-        bfly, rad = {5: 48, 3: 16, 4: 16, 2: 4}, ff.fft_radices(n)
+        bfly, rad = {7: 96, 5: 48, 3: 16, 4: 16, 2: 4}, ff.fft_radices(n)
         pair = 2.0 * n + 8.0 * (n // 2 + 1)
         for st, r in enumerate(rad):
             pair += (n / r) * (bfly[r] + (6.0 * (r - 1) if st < len(rad) - 1 else 0.0))
@@ -6131,13 +6373,14 @@ def main() -> int:
     # the angles read and, per bin, |X|, a sincos and two products (26
     # operations); P reads magnitudes and angles, writes the audio, one
     # inverse FFT, the window, the overlap-add and 22 operations per bin.
-    # The product route of R, L, M, P and S (1344/336 = 2^6 3 7, 528
-    # frames) runs the full-length products: the analysis of every frame a
-    # block holds (n_fft rounded to 32 x 128-bin column tiles, cos and sin)
-    # and the synthesis of 8 ceil(R / 8) chunks x overlap x Kp x hop per
-    # block; R's FFT route does fft_design_flops, its smooth route (1200/300,
-    # 592 frames) smooth_design_flops, its product route the analysis
-    # product; the FFT and smooth routes of L and M a forward and an inverse
+    # The product route of P and S (1344/336 = 2^6 3 7, 528 frames) and of
+    # R, L and M (1408/352 = 2^7 11, 504 frames) runs the full-length
+    # products: the analysis of every frame a block holds (n_fft rounded to
+    # 32 x 128-bin column tiles, cos and sin) and the synthesis of 8 ceil(R /
+    # 8) chunks x overlap x Kp x hop per block; R's FFT route does
+    # fft_design_flops, its smooth route (1200/300, 592 frames; the radix-7
+    # instance at 1344/336) smooth_design_flops, its product route the
+    # analysis product; the FFT and smooth routes of L and M a forward and an inverse
     # FFT of rows + 2 overlap frames a block of rows chunks, those of P and S
     # an inverse FFT of as many (the pack's operations as the split's).  The yardsticks (timed, used
     # nowhere): torch.stft(center=False) on the padded rows; torch.fft.irfft
@@ -6188,16 +6431,17 @@ def main() -> int:
     q_need = 2 * q_fft + 3.0 * n_fft_q * q_fr
     q_out = 4.0 * SB * T_q * hop_q
 
-    # R, L, M and the magnitude encode on the product route at 1344/336
-    # (2^6 3 7): the window-folded products (rows + overlap - 1 frames'
-    # analysis, the synthesis product), overlap 4 and gain 4
+    # R, L, M and the magnitude encode on the smooth route's radix-7
+    # instances at 1344/336 (2^6 3 7; the decodes P and S on their product
+    # route there): the same functions, a forward and an inverse mixed-radix
+    # FFT (radices 7 3 4 4 4) of rows + 2 overlap frames a block of rows
+    # chunks, overlap 4 and gain 4
     n_fft_x, hop_x = 1344, 336
     F_x, T_x, ov_x = n_fft_x // 2 + 1, -(-STREAM_LEN // 2688) * 8, n_fft_x // hop_x
     w_x = torch.hann_window(n_fft_x, device=dev)
     x_ops = ss._encode_operands(w_x, n_fft_x)
     x_fr = float(SB * T_x)
     x_fft = 2.5 * n_fft_x * math.log2(n_fft_x) * x_fr
-    x_ana = 4.0 * x_fr * ss._k_analysis(n_fft_x) * 128 * -(-F_x // 128)
     x_chain = T.OverlapAdd(n_fft_x, hop_x) + T.RealtimeSTFT(n_fft=n_fft_x, hop_length=hop_x)
     x_rt = x_chain[1]
     x_rt_ops = ss._Session(x_chain, 8).roundtrip_operands()
@@ -6205,16 +6449,50 @@ def main() -> int:
                                      generator=torch.Generator(device=dev).manual_seed(args.seed + 56))
     r_x = ss._roundtrip_plan(n_fft_x, hop_x)[0]
     t_x = -(-T_x // r_x)
-    x_design = (4.0 * SB * (T_x + t_x * (ov_x - 1)) * ss._k_analysis(n_fft_x) * 128 * -(-F_x // 128)
-                + 2.0 * SB * t_x * 8 * -(-r_x // 8) * ov_x * ss._k_padded(F_x) * hop_x)
+    x_design = 2.0 * smooth_design_flops(n_fft_x, SB * t_x * (r_x + 2 * ov_x)) + 3.0 * n_fft_x * x_fr
     x_need = 2 * x_fft + 3.0 * n_fft_x * x_fr
     x_out = 4.0 * SB * T_x * hop_x
-    require(ss.session_route(n_fft_q) == "smooth" and ss.session_route(n_fft_x) == "product"
-            and x_ops[0].shape[0] == ss._k_analysis(n_fft_x), "phase 5: the smooth and product shapes' routes")
+
+    # R, L, M and the magnitude encode on the product route at 1408/352
+    # (2^7 11): the window-folded products (rows + overlap - 1 frames'
+    # analysis, the synthesis product), overlap 4 and gain 4
+    n_fft_z, hop_z = 1408, 352
+    F_z, T_z, ov_z = n_fft_z // 2 + 1, -(-STREAM_LEN // 2816) * 8, n_fft_z // hop_z
+    w_z = torch.hann_window(n_fft_z, device=dev)
+    z_ops = ss._encode_operands(w_z, n_fft_z)
+    z_fr = float(SB * T_z)
+    z_fft = 2.5 * n_fft_z * math.log2(n_fft_z) * z_fr
+    z_ana = 4.0 * z_fr * ss._k_analysis(n_fft_z) * 128 * -(-F_z // 128)
+    z_chain = T.OverlapAdd(n_fft_z, hop_z) + T.RealtimeSTFT(n_fft=n_fft_z, hop_length=hop_z)
+    z_rt = z_chain[1]
+    z_rt_ops = ss._Session(z_chain, 8).roundtrip_operands()
+    z_ang = 2 * math.pi * torch.rand((SB, T_z, F_z), device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(args.seed + 57))
+    r_z = ss._roundtrip_plan(n_fft_z, hop_z)[0]
+    t_z = -(-T_z // r_z)
+    z_design = (4.0 * SB * (T_z + t_z * (ov_z - 1)) * ss._k_analysis(n_fft_z) * 128 * -(-F_z // 128)
+                + 2.0 * SB * t_z * 8 * -(-r_z // 8) * ov_z * ss._k_padded(F_z) * hop_z)
+    z_need = 2 * z_fft + 3.0 * n_fft_z * z_fr
+    z_out = 4.0 * SB * T_z * hop_z
+    require(ss.session_route(n_fft_q, "decode") == "smooth" and ss.session_route(n_fft_x, "encode") == "smooth"
+            and ss.session_route(n_fft_x, "roundtrip", hop_x) == "smooth" and ss.session_route(n_fft_x, "decode") == "product"
+            and ss.session_route(n_fft_z, "encode") == ss.session_route(n_fft_z, "roundtrip", hop_z) == "product"
+            and x_ops[0].shape == (n_fft_x,) and z_ops[0].shape[0] == ss._k_analysis(n_fft_z),
+            "phase 5: the smooth, radix-7 and product shapes' routes")
 
     def lib_encode_x():
         rows = ss.session_rows(sx, n_fft_x, hop_x, T_x)
         return torch.stft(rows, n_fft_x, hop_x, window=w_x, center=False, return_complex=True)
+
+    def lib_encode_z():
+        rows = ss.session_rows(sx, n_fft_z, hop_z, T_z)
+        return torch.stft(rows, n_fft_z, hop_z, window=w_z, center=False, return_complex=True)
+
+    def lib_synth_z(S):
+        fr = torch.fft.irfft(S, n=n_fft_z) * (z_rt.inv_window / ov_z)
+        y = torch.nn.functional.fold(fr.transpose(1, 2), (1, (T_z - 1) * hop_z + n_fft_z), (1, n_fft_z),
+                                     stride=(1, hop_z))
+        return y.reshape(SB, -1)[:, : T_z * hop_z]
 
     def lib_synth_x(S):
         fr = torch.fft.irfft(S, n=n_fft_x) * (x_rt.inv_window / ov_x)
@@ -6269,12 +6547,18 @@ def main() -> int:
              plain=lambda: ss.session_encode_reference(sx, w_q, n_fft_q, hop_q, T_q),
              library=lib_encode_q, bound=bound_of(s_in + 8.0 * q_fr * F_q, q_fft + n_fft_q * q_fr),
              ceiling=ceiling_of(smooth_design_flops(n_fft_q, q_fr))),
-        dict(key="R_product", name="session_encode_product", source=stream_src, front_end="product",
-             replaces=stream_tpu + ":1670", launches=counts["session_encode:product"],
+        dict(key="R_smooth7", name="session_encode_smooth7", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="smooth", replaces=stream_tpu + ":1670", launches=counts["session_encode:smooth7"],
              run=lambda: ss._launch_encode(sx, x_ops, n_fft_x, hop_x, T_x),
              plain=lambda: ss.session_encode_reference(sx, w_x, n_fft_x, hop_x, T_x),
              library=lib_encode_x, bound=bound_of(s_in + 8.0 * x_fr * F_x, x_fft + n_fft_x * x_fr),
-             ceiling=ceiling_of(x_ana)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_x, x_fr)), resources=seven_res["R"]),
+        dict(key="R_product", name="session_encode_product", source=stream_src, front_end="product",
+             replaces=stream_tpu + ":1670", launches=counts["session_encode:product"],
+             run=lambda: ss._launch_encode(sx, z_ops, n_fft_z, hop_z, T_z),
+             plain=lambda: ss.session_encode_reference(sx, w_z, n_fft_z, hop_z, T_z),
+             library=lib_encode_z, bound=bound_of(s_in + 8.0 * z_fr * F_z, z_fft + n_fft_z * z_fr),
+             ceiling=ceiling_of(z_ana)),
         dict(key="L", name="session_roundtrip", source=stream_src + " (+ csrc/fft_smem.cuh)", front_end="fft",
              replaces=stream_tpu + ":211", launches=counts["session_roundtrip:fft"],
              run=lambda: ss._launch_roundtrip(sx, None, s_rt_ops, N_FFT, HOP, n_sf),
@@ -6305,22 +6589,37 @@ def main() -> int:
              library=lambda: lib_synth_q(torch.polar(lib_encode_q().transpose(1, 2).abs(), q_ang)),
              bound=bound_of(s_in + q_out + 4.0 * q_fr * F_q, q_need + 26.0 * q_fr * F_q),
              ceiling=ceiling_of(q_design + 26.0 * q_fr * F_q)),
-        dict(key="L_product", name="session_roundtrip_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
-             front_end="product", replaces=stream_tpu + ":211", launches=counts["session_roundtrip:product"],
+        dict(key="L_smooth7", name="session_roundtrip_smooth7", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="smooth", replaces=stream_tpu + ":211", launches=counts["session_roundtrip:smooth7"],
              run=lambda: ss._launch_roundtrip(sx, None, x_rt_ops, n_fft_x, hop_x, T_x),
              plain=lambda: ss.session_roundtrip_reference(sx, x_rt.window, x_rt.inv_window, float(ov_x), n_fft_x,
                                                           hop_x, T_x),
              library=lambda: lib_synth_x(lib_encode_x().transpose(1, 2)),
-             bound=bound_of(s_in + x_out, x_need), ceiling=ceiling_of(x_design)),
-        dict(key="M_product", name="session_random_roundtrip_product",
-             source=stream_src + " (+ csrc/synth_ola.cuh)", front_end="product",
-             replaces=stream_tpu + ":372", launches=counts["session_random_roundtrip:product"],
+             bound=bound_of(s_in + x_out, x_need), ceiling=ceiling_of(x_design), resources=seven_res["L"]),
+        dict(key="M_smooth7", name="session_random_roundtrip_smooth7", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="smooth", replaces=stream_tpu + ":372", launches=counts["session_random_roundtrip:smooth7"],
              run=lambda: ss._launch_roundtrip(sx, x_ang, x_rt_ops, n_fft_x, hop_x, T_x),
              plain=lambda: ss.session_roundtrip_reference(sx, x_rt.window, x_rt.inv_window, float(ov_x), n_fft_x,
                                                           hop_x, T_x, angles=x_ang),
              library=lambda: lib_synth_x(torch.polar(lib_encode_x().transpose(1, 2).abs(), x_ang)),
              bound=bound_of(s_in + x_out + 4.0 * x_fr * F_x, x_need + 26.0 * x_fr * F_x),
-             ceiling=ceiling_of(x_design + 26.0 * x_fr * F_x)),
+             ceiling=ceiling_of(x_design + 26.0 * x_fr * F_x), resources=seven_res["M"]),
+        dict(key="L_product", name="session_roundtrip_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
+             front_end="product", replaces=stream_tpu + ":211", launches=counts["session_roundtrip:product"],
+             run=lambda: ss._launch_roundtrip(sx, None, z_rt_ops, n_fft_z, hop_z, T_z),
+             plain=lambda: ss.session_roundtrip_reference(sx, z_rt.window, z_rt.inv_window, float(ov_z), n_fft_z,
+                                                          hop_z, T_z),
+             library=lambda: lib_synth_z(lib_encode_z().transpose(1, 2)),
+             bound=bound_of(s_in + z_out, z_need), ceiling=ceiling_of(z_design)),
+        dict(key="M_product", name="session_random_roundtrip_product",
+             source=stream_src + " (+ csrc/synth_ola.cuh)", front_end="product",
+             replaces=stream_tpu + ":372", launches=counts["session_random_roundtrip:product"],
+             run=lambda: ss._launch_roundtrip(sx, z_ang, z_rt_ops, n_fft_z, hop_z, T_z),
+             plain=lambda: ss.session_roundtrip_reference(sx, z_rt.window, z_rt.inv_window, float(ov_z), n_fft_z,
+                                                          hop_z, T_z, angles=z_ang),
+             library=lambda: lib_synth_z(torch.polar(lib_encode_z().transpose(1, 2).abs(), z_ang)),
+             bound=bound_of(s_in + z_out + 4.0 * z_fr * F_z, z_need + 26.0 * z_fr * F_z),
+             ceiling=ceiling_of(z_design + 26.0 * z_fr * F_z)),
         dict(key="P", name="session_random_decode", source=stream_src + " (+ csrc/fft_smem.cuh)", front_end="fft",
              replaces=stream_tpu + ":1328", launches=counts["session_random_decode:fft"],
              run=lambda: ss._launch_decode(s_mags, s_ang, s_syn, N_FFT, HOP),
@@ -6375,13 +6674,21 @@ def main() -> int:
              library=lambda: lib_encode_q().abs(),
              bound=bound_of(s_in + 4.0 * q_fr * F_q, q_fft + (n_fft_q + 4.0 * F_q) * q_fr),
              ceiling=ceiling_of(smooth_design_flops(n_fft_q, q_fr) + 4.0 * q_fr * F_q)),
-        dict(key="Rmag_product", name="session_magnitude_encode_product", source=stream_src,
-             front_end="product", replaces=stream_tpu + ":602", launches=counts["session_magnitude:product"],
+        dict(key="Rmag_smooth7", name="session_magnitude_encode_smooth7",
+             source=stream_src + " (+ csrc/fft_smem.cuh)", front_end="smooth", replaces=stream_tpu + ":602",
+             launches=counts["session_magnitude:smooth7"],
              run=lambda: ss._launch_encode(sx, x_ops, n_fft_x, hop_x, T_x, magnitude=True),
              plain=lambda: ss.session_magnitude_reference(sx, w_x, n_fft_x, hop_x, T_x),
              library=lambda: lib_encode_x().abs(),
              bound=bound_of(s_in + 4.0 * x_fr * F_x, x_fft + (n_fft_x + 4.0 * F_x) * x_fr),
-             ceiling=ceiling_of(x_ana + 4.0 * x_fr * F_x)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_x, x_fr) + 4.0 * x_fr * F_x), resources=seven_res["N"]),
+        dict(key="Rmag_product", name="session_magnitude_encode_product", source=stream_src,
+             front_end="product", replaces=stream_tpu + ":602", launches=counts["session_magnitude:product"],
+             run=lambda: ss._launch_encode(sx, z_ops, n_fft_z, hop_z, T_z, magnitude=True),
+             plain=lambda: ss.session_magnitude_reference(sx, w_z, n_fft_z, hop_z, T_z),
+             library=lambda: lib_encode_z().abs(),
+             bound=bound_of(s_in + 4.0 * z_fr * F_z, z_fft + (n_fft_z + 4.0 * F_z) * z_fr),
+             ceiling=ceiling_of(z_ana + 4.0 * z_fr * F_z)),
         dict(key="RT", name="rt_pghi_phases", source="acids_transforms_tpu_torch/csrc/pghi.cu",
              replaces=stream_tpu + ":668", launches=counts["rt_pghi_phases"],
              run=lambda: ss._launch_rt_pghi(rt_mag, rt_ang, *rt_args),
@@ -6568,7 +6875,7 @@ def main() -> int:
     gq_iters = q_rt.gl_iterations
     gq_pol = gp_q.clone()
     gq_plan = ss._polish_plan(n_fft_q, hop_q, gq_tp)
-    require(gq_plan is not None and ss.session_route(n_fft_q) == "smooth",
+    require(gq_plan is not None and ss.session_route(n_fft_q, "polish") == "smooth",
             "phase 5: the polish must hold 1200/300's 14-frame grid on the smooth route")
     gq_pframes = gq_tp + ov_q - 1
     gq_pairs = sum((gq_pframes - 1 - c) // (2 * ov_q) + 1 for c in range(ov_q))
@@ -6781,6 +7088,22 @@ def main() -> int:
         log(f"  smooth plan sweep {shape} (E + F b2b, ms; tile x FFTs, KB, blocks an SM): " + "; ".join(
             f"{p['tile']} x {p['teams']} ({p['smem_kb']:.1f} KB, {p['blocks']}) {p['e_ms']:.3f} + {p['f_ms']:.3f}"
             for p in r["rows"]) + f"; the rule's pick {r['pick']} {100 * r['over']:+.1f}% over the best {r['best']}")
+    # R and L / M on the smooth route's radix-7 instances under every plan
+    # (reported, not gated), and the registers and spill of every
+    # mixed-radix instance of the build
+    for shape, r in seven_plan_sweep(sx, args.repeats).items():
+        log(f"  radix-7 plan sweep {shape}, {SB} sessions x {r['frames']} frames: R (b2b ms; frames x FFTs, KB, "
+            f"blocks an SM) " + "; ".join(
+                f"{p['rows']} x {p['teams']} ({p['smem_kb']:.1f} KB, {p['blocks']}) {p['ms']:.3f}" for p in r["encode"])
+            + f"; the rule's pick {r['pick_e']} {100 * r['over_e']:+.1f}% over the best {r['best_e']}")
+        log(f"  radix-7 plan sweep {shape}: L / M (b2b ms; chunks x FFTs, KB, blocks an SM) " + "; ".join(
+            f"{p['rows']} x {p['teams']} ({p['smem_kb']:.1f} KB, {p['blocks']}) {p['l_ms']:.3f} / {p['m_ms']:.3f}"
+            for p in r["roundtrip"]) + f"; the rule's pick {r['pick_r']} {100 * r['over_r']:+.1f}% over the best "
+            f"{r['best_r']}")
+    for name, res in smooth_instance_resources(_build.kernel_resources()).items():
+        log(f"  mixed-radix instance {name}: {res.get('registers')} registers, spill stores / loads "
+            f"{res.get('spill_stores', 0)} / {res.get('spill_loads', 0)} B")
+
     # G and H full-K on the smooth route under every plan (reported, not gated)
     def opt_ms(v):
         return "-" if v is None else f"{v:.3f}"

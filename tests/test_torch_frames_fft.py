@@ -30,7 +30,12 @@ from acids_transforms_tpu.ops.pallas import stream_step as JK
 import acids_transforms_tpu_torch.transforms as PT
 from acids_transforms_tpu_torch.ops.cuda import spectral as SP
 from acids_transforms_tpu_torch.ops.cuda import stream_step as PK
-from acids_transforms_tpu_torch.ops.cuda.frames_fft import fft_covers, fft_covers_smooth, frames_rfft_reference
+from acids_transforms_tpu_torch.ops.cuda.frames_fft import (
+    fft_covers,
+    fft_covers_smooth,
+    fft_covers_smooth7,
+    frames_rfft_reference,
+)
 from acids_transforms_tpu_torch.ops.fft import _dft_matrices
 from acids_transforms_tpu_torch.ops.windows import gaussian_dgt_window, get_window
 from test_torch_common import make_audio, rel, t2n
@@ -151,7 +156,7 @@ def test_route_rule_and_coverage():
         if old_encode:
             assert PK.kernel_covers("encode", n_fft, hop), (n_fft, hop)
             rows, teams = PK._encode_plan(n_fft, hop)
-            assert (teams > 0) == (fft_covers(n_fft) or fft_covers_smooth(n_fft)), (n_fft, hop)
+            assert (teams > 0) == (fft_covers(n_fft) or fft_covers_smooth7(n_fft)), (n_fft, hop)
             if teams:
                 assert rows % 2 == 0 and PK._encode_fft_smem_bytes(rows, hop, n_fft, teams) <= PK.MAX_SMEM
         # E and F (the full-K gate and tile before the FFT route)
@@ -174,9 +179,11 @@ def test_route_rule_and_coverage():
                 assert SP._kernel_plan(n_fft, hop, (0.5, -0.25)) == (SP._pick_tile(hop, n_fft // hop, F), 0)
     # the named shapes, and the main shape
     assert PK._encode_plan(1024, 256) == (32, 4) and SP._kernel_plan(1024, 256, None) == (16, 4)
-    # 1200 and 960 (5-smooth) on the smooth route, 1344 = 2^6 3 7 on the product
+    # 1200 and 960 (5-smooth) on the smooth route, 1408 = 2^7 11 on the product,
+    # 1344 = 2^6 3 7 on the smooth route's radix-7 stage
     assert PK._encode_plan(1200, 300) == (16, 2) and PK._encode_plan(960, 240)[1] > 0
-    assert PK._encode_plan(1344, 336)[1] == 0
+    assert PK._encode_plan(1408, 352)[1] == 0
+    assert PK._encode_plan(1344, 336)[1] > 0
     assert SP._kernel_plan(768, 256, None)[1] > 0 and SP._kernel_plan(896, 224, None)[1] == 0
     assert SP._kernel_plan(4096, 1024, None)[0] == 8       # n_fft 4096: a tile of 8 frames
 

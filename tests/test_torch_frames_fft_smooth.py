@@ -17,9 +17,11 @@ decodes (P, S, O's projection synthesis; their sessions in
   ``tests/test_torch_stream_kernel.py`` holds them, and against the float64
   session oracle within 1e-5;
 * the route rule: R, L and the decodes smooth at 1200/300, the polish and
-  the other kernels on their product routes there, the products at 1344/336
-  (2^6 3 7), and every shape the encode, roundtrip and decode gates took
-  before still taken.
+  the other kernels on their product routes there, the products at 1408/352
+  (2^7 11; at 1344/336, 2^6 3 7, R and L take the radix-7 stage,
+  ``tests/test_torch_frames_fft_seven.py``, the decodes the products), and
+  every shape the encode, roundtrip and decode gates took before still
+  taken.
 
 On the card ``chip_smoke.py`` holds the kernels against these plain versions
 (bit-identical at 1200/300, 960/240, 768/192, 400/100 and 1920/480).
@@ -94,7 +96,8 @@ def test_radix_plan_team_and_table():
     assert FF.fft_radices(1024) == (4, 4, 4, 4, 4) and FF.fft_radices(2048)[-1] == 2
     assert FF.fft_smooth_team_threads(1200) == 128 and FF.fft_smooth_table(1200) == 957
     with pytest.raises(ValueError):
-        FF.fft_radices(1344)
+        FF.fft_radices(1408)                                # 2^7 11
+    assert FF.fft_radices(1344) == (7, 3, 4, 4, 4)          # 2^6 3 7: the radix-7 stage first
 
 
 def test_header_holds_the_same_constants():
@@ -131,10 +134,13 @@ def test_smooth_schedule_vs_float64_oracle_and_product(n, wname):
 
 
 def test_smooth_schedule_refuses_other_sizes():
-    for n in (64, 1024, 1344, 1056, 8000):
+    for n in (64, 1024, 1408, 1056, 8000):
         assert not FF.fft_covers_smooth(n)
         with pytest.raises(ValueError, match="2\\^a 3\\^b 5\\^c"):
             FF.frames_rfft_reference(torch.zeros(1, 2, n), torch.ones(n), smooth=True)
+    # 1344 = 2^6 3 7: not 5-smooth, but the schedule's radix-7 stage takes it
+    assert not FF.fft_covers_smooth(1344) and FF.fft_covers_smooth7(1344)
+    assert FF.frames_rfft_reference(torch.zeros(1, 2, 1344), torch.ones(1344), smooth=True)[0].shape == (1, 2, 673)
     with pytest.raises(ValueError, match="power of two"):
         FF.frames_rfft_reference(torch.zeros(1, 2, 1200), torch.ones(1200))
 
@@ -153,7 +159,8 @@ def _session(n, hop, seed):
     x = make_audio(seed, batch=2, n=3 * chunk - 500)[:, 0]          # a ragged last chunk
     jc = JT.OverlapAdd(n, hop) + JT.RealtimeSTFT(n_fft=n, hop_length=hop)
     pc = PT.OverlapAdd(n, hop, device="cpu") + PT.RealtimeSTFT(n_fft=n, hop_length=hop, device="cpu")
-    assert PK.session_route(n) == "smooth" and JS.plan_roundtrip(jc, x.shape, chunk) != "fused"
+    assert all(PK.session_route(n, k, hop) == "smooth" for k in PK.SESSION_ROUTE_KINDS)
+    assert JS.plan_roundtrip(jc, x.shape, chunk) != "fused"
     T = 3 * chunk // hop
     return x, chunk, jc, pc, T
 
@@ -196,9 +203,10 @@ def test_l_and_m_vs_jax_scan_and_oracle(n, hop):
 def test_route_rule():
     """R, L, the decodes and O's polish smooth at 1200/300 and 960/240; the
     full-K kernels but E and F keep ``fft_covers`` (E and F take the smooth
-    route too); 1344/336 on the products."""
+    route too); 1408/352 on the products, and 1344/336's decodes (its R and
+    L take the radix-7 stage)."""
     for n, hop in SESSION_SHAPES + [(768, 192), (400, 100), (1920, 480)]:
-        assert PK.session_route(n) == "smooth"
+        assert all(PK.session_route(n, k, hop) == "smooth" for k in PK.SESSION_ROUTE_KINDS)
         assert PK._encode_plan(n, hop)[1] > 0 and PK._roundtrip_plan(n, hop)[1] > 0
         assert PK._decode_plan(n, hop)[1] > 0 and PK._decode_plan(n, hop, PK.PROJECT_SYN_ROWS)[1] > 0
         assert PK._polish_plan(n, hop, 20) is not None
@@ -210,16 +218,20 @@ def test_route_rule():
     assert PK._roundtrip_plan(768, 192) == (24, 4) and PK._roundtrip_plan(400, 100) == (56, 8)
     assert PK._encode_plan(1920, 480) == (8, 2)
     assert PK._decode_plan(1344, 336) == (PK._pick_rows("decode", 1344, 336), 0)
-    assert PK.session_route(1344) == "product"
-    assert PK._encode_plan(1344, 336) == (PK._pick_rows("encode", 1344, 336), 0)
-    assert PK._roundtrip_plan(1344, 336) == (PK._pick_rows("roundtrip", 1344, 336), 0)
-    assert PK.session_route(1024) == "fft" and PK._encode_plan(1024, 256) == (32, 4)
+    assert PK.session_route(1344, "decode") == "product"
+    assert PK._encode_plan(1408, 352) == (PK._pick_rows("encode", 1408, 352), 0)
+    assert PK._roundtrip_plan(1408, 352) == (PK._pick_rows("roundtrip", 1408, 352), 0)
+    # 1344/336: R and L on the smooth route's radix-7 instance
+    assert PK._encode_plan(1344, 336)[1] > 0 and PK._roundtrip_plan(1344, 336)[1] > 0
+    assert PK.session_route(1024, "encode") == "fft" and PK._encode_plan(1024, 256) == (32, 4)
     assert PK._roundtrip_plan(1024, 256) == (24, 4)
     # operands: the window and the twiddles on the smooth route, the bases on the product
     win, tw = PK._encode_operands(torch.hann_window(1200), 1200)
     assert win.shape == (1200,) and tw.shape == (2, 1200)
-    wc, ws = PK._encode_operands(torch.hann_window(1344), 1344)
-    assert wc.shape == ws.shape == (1344, 673)
+    wc, ws = PK._encode_operands(torch.hann_window(1408), 1408)
+    assert wc.shape == ws.shape == (1408, 705)
+    win, tw = PK._encode_operands(torch.hann_window(1344), 1344)
+    assert win.shape == (1344,) and tw.shape == (2, 1344)
 
 
 def test_every_shape_taken_before_is_still_taken():
@@ -233,10 +245,10 @@ def test_every_shape_taken_before_is_still_taken():
             if old_encode:
                 assert PK.kernel_covers("encode", n, hop), (n, hop)
                 rows, teams = PK._encode_plan(n, hop)
-                if PK.session_route(n) == "smooth":
+                if PK.session_route(n, "encode") == "smooth":
                     assert rows % 2 == 0 and 1 <= teams <= FF.fft_smooth_max_teams(n)
                     assert PK._encode_fft_smem_bytes(rows, hop, n, teams) <= PK.MAX_SMEM
-            if old_roundtrip and PK.session_route(n) == "smooth":
+            if old_roundtrip and PK.session_route(n, "roundtrip", hop) == "smooth":
                 assert PK.kernel_covers("roundtrip", n, hop), (n, hop)
                 rows, teams = PK._roundtrip_plan(n, hop)
                 assert rows % (2 * ov) == 0 and 1 <= teams <= FF.fft_smooth_max_teams(n)
@@ -245,7 +257,7 @@ def test_every_shape_taken_before_is_still_taken():
                 assert PK.kernel_covers("decode", n, hop), (n, hop)
                 for narrow in (None, PK.PROJECT_SYN_ROWS):
                     rows, teams = PK._decode_plan(n, hop, narrow)
-                    if PK.session_route(n) == "smooth":
+                    if PK.session_route(n, "decode") == "smooth":
                         assert rows % (2 * ov) == 0 and 1 <= teams <= FF.fft_smooth_max_teams(n), (n, hop)
                         assert PK._decode_fft_smem_bytes(rows, hop, n, teams) <= PK.MAX_SMEM
 
@@ -267,8 +279,8 @@ def test_no_route_counted_on_the_cpu():
 def test_bank_conflicts_of_the_stages():
     """Counted from the address pattern: every read conflict-free, the writes
     at most 3-way (the radix-3 stage), the stride-1 writes of the odd
-    radices conflict-free."""
-    for n in (1200, 960, 768, 400, 1920, 96):
+    radices conflict-free (the radix-7 stage's too, at 896 and 1344)."""
+    for n in (1200, 960, 768, 400, 1920, 96, 896, 1344):
         rows = stage_conflicts(n)
         assert [r["radix"] for r in rows] == list(FF.fft_radices(n))
         assert all(r["read_max"] == 1 for r in rows) and all(r["write_max"] <= 3 for r in rows)

@@ -17,8 +17,8 @@ M), as their plain versions (``ops/cuda/frames_fft.py``, ``glstep.py``,
   package's Pallas kernels in interpret mode (J on the frames inside the
   trimmed signal, 1e-4 of the projection's largest value; L 1e-4, M 1e-3: the
   TPU products are bf16x3/x4) and against float64 oracles (2e-6 for J, 1e-5
-  for L and M); L / M on the product route at 1344/336 (1200/300 takes the
-  smooth route since it exists) against the oracle;
+  for L and M); L / M on the product route at 1408/352 (1200/300 takes the
+  smooth route since it exists, 1344/336 its radix-7 stage) against the oracle;
 * the route rule (``n_fft`` alone), the coverage of every shape the gates took
   before the FFT route, and ``pghi_gl`` on the FFT schedule converging like
   the eager loop.
@@ -44,6 +44,7 @@ from acids_transforms_tpu_torch.ops.cuda.frames_fft import (
     _stockham,
     fft_covers,
     fft_covers_smooth,
+    fft_covers_smooth7,
     fft_smooth_max_teams,
     fft_twiddles,
     frames_irfft_reference,
@@ -205,8 +206,11 @@ def test_l_and_m_fft_schedule_under_the_dgt_window_vs_pallas_and_oracle():
 
 @pytest.mark.parametrize("random", [False, True])
 def test_l_and_m_product_route_vs_oracle(random):
-    n, hop, chunk = 1344, 336, 2688                    # 2^6 3 7: neither the FFT nor the smooth route
-    assert not fft_covers(n) and not fft_covers_smooth(n)
+    n, hop, chunk = 1408, 352, 2816                    # 2^7 11: neither the FFT nor the smooth route
+    assert not fft_covers(n) and not fft_covers_smooth(n) and not fft_covers_smooth7(n)
+    assert PK.session_route(n, "roundtrip", hop) == "product"
+    # 1344/336 (2^6 3 7), this test's shape before: the smooth route's radix-7 stage
+    assert PK.session_route(1344, "roundtrip", 336) == "smooth"
     x = make_audio(65, batch=2, n=2 * chunk + 100)[:, 0]
     rt = PT.RealtimeSTFT(n_fft=n, hop_length=hop, device="cpu")
     T = 3 * chunk // hop
@@ -226,10 +230,12 @@ def test_route_rule():
     assert PG._fullk_plan(896, 224)[0] == "product"                # 2^7 7: neither the FFT nor the smooth route
     assert PG._fullk_plan(8192, 2048)[3] == 1056                   # slabs of 1056 columns
     assert PK._roundtrip_plan(1024, 256) == (24, 4)
-    # 1200 and 960 (5-smooth) take the smooth route; 1344 = 2^6 3 7 the product
-    assert PK._roundtrip_plan(1200, 300) == (16, 2) and PK.session_route(1200) == "smooth"
-    assert PK._roundtrip_plan(960, 240)[1] > 0 and PK.session_route(960) == "smooth"
-    assert PK._roundtrip_plan(1344, 336) == (PK._pick_rows("roundtrip", 1344, 336), 0)
+    # 1200 and 960 (5-smooth) take the smooth route; 1408 = 2^7 11 the product;
+    # 1344 = 2^6 3 7 the smooth route's radix-7 stage
+    assert PK._roundtrip_plan(1200, 300) == (16, 2) and PK.session_route(1200, "roundtrip", 300) == "smooth"
+    assert PK._roundtrip_plan(960, 240)[1] > 0 and PK.session_route(960, "roundtrip", 240) == "smooth"
+    assert PK._roundtrip_plan(1408, 352) == (PK._pick_rows("roundtrip", 1408, 352), 0)
+    assert PK._roundtrip_plan(1344, 336)[1] > 0 and PK.session_route(1344, "roundtrip", 336) == "smooth"
     for n, hop in ((512, 128), (2048, 512), (4096, 1024), (128, 32)):
         assert PK._roundtrip_plan(n, hop)[1] > 0 and PG._fullk_plan(n, hop)[0] == "fft"
     assert PK._roundtrip_plan(64, 16)[1] > 0

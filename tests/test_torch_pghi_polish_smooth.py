@@ -138,7 +138,7 @@ def test_smooth_polish_vs_jax_projections(n_fft, hop, la):
     leaves alone keep their bits; the CPU wrapper runs the plain version."""
     jrt, prt = rt_pair(n_fft, hop, la)
     mag, ph, Tx = grid(n_fft, hop, la, 2, seed=5 * n_fft + la)
-    assert SS._polish_plan(n_fft, hop, mag.shape[1]) is not None and SS.session_route(n_fft) == "smooth"
+    assert SS._polish_plan(n_fft, hop, mag.shape[1]) is not None and SS.session_route(n_fft, "polish") == "smooth"
     ctx = prt.gl_context
     lo, hi = prt.gl_frozen(T_C)
     m, p = torch.as_tensor(mag), torch.as_tensor(ph)
@@ -188,7 +188,7 @@ def test_route_rules_and_plans():
     at an even 5-smooth n_fft fits shared memory, and K's route is smooth at
     every such shape its gate takes."""
     for n, hop in ((768, 256), (768, 192), (1200, 300), (1000, 250)):
-        assert PK.synth_route(n, hop) == "smooth" and SS.session_route(n) == "smooth"
+        assert PK.synth_route(n, hop) == "smooth" and SS.session_route(n, "polish") == "smooth"
     for n, hop in ((768, 192), (1200, 300), (1000, 200)):
         assert SS._polish_plan(n, hop, 3 + T_C + n // hop - 1) is not None
     for n, hop in ((896, 224), (1344, 336)):

@@ -74,7 +74,7 @@ def session(n_fft, hop, seed):
 def test_p_vs_jax_scan_and_oracle(n_fft, hop):
     """P with the JAX generic scan's own draws (``JK._session_angles`` replays
     its key pipeline): the JAX scan at 1e-4, the float64 oracle at 1e-5."""
-    assert PK.session_route(n_fft) == "smooth" and PK._decode_plan(n_fft, hop)[1] > 0
+    assert PK.session_route(n_fft, "decode") == "smooth" and PK._decode_plan(n_fft, hop)[1] > 0
     jc, pc = chains(n_fft, hop)
     _, T_c, spec = session(n_fft, hop, n_fft + 3)
     mags = spec.abs()
