@@ -44,10 +44,11 @@
 // true>); O's analysis keeps its product route at those sizes.  With a
 // radix-7 stage as well (template argument kSeven = true) where
 // fft_covers_smooth7() takes n_fft and n_fft has a factor 7 (even, 2^a 3^b 5^c
-// 7^d: 896, 1344, 1680, 1764, ...), in R, the magnitude encode of N, L and M
-// only (session_encode_kernel<., true, true, true>,
-// session_roundtrip_fft_kernel<., true, true>); every other kernel keeps its
-// product route at those sizes.
+// 7^d: 896, 1344, 1680, 1764, ...), in R, the magnitude encode of N, L, M and
+// the decodes P, S and O's projection synthesis (session_encode_kernel<.,
+// true, true, true>, session_roundtrip_fft_kernel<., true, true>,
+// session_decode_fft_kernel<., true, true>); every other kernel keeps its
+// product route at those sizes (O's polish its two-launch projection).
 //
 // What they compute.  frames_rfft: X_r[k] = sum_n w[n] xs[r hop + n] e^{-2 pi
 // i n k / n} for k <= n / 2 of every frame r < n_frames of a sample buffer
@@ -144,7 +145,7 @@
 //   stage has b - q = 0 for every butterfly, so it turns nothing and writes
 //   where it reads.  1200 = 5 5 3 4 4: five trips; 1344 = 7 3 4 4 4.
 // * the radix-7 stage is compiled only into the instances that take a
-//   factor 7 (kSeven, R's and L's): fft_passes_smooth<false> holds no
+//   factor 7 (kSeven: R's, L's and the decode's): fft_passes_smooth<false> holds no
 //   radix-7 loop and fft_smooth_plan<false> no count of sevens, so every
 //   other mixed-radix instance compiles as it did before the stage existed.
 //   Its butterfly (fft_dft<7>, the symmetric form of frames_fft._dft7) holds
@@ -878,11 +879,11 @@ __device__ void frames_irfft_classes(int n_frames, int stride, int n, const FftS
 // shared memory) written before the call: it starts with a barrier, and ends
 // with one.  kSmooth: the mixed-radix route (fft_covers_smooth(n)), twiddles
 // staged by fft_stage<true> into an area carved by carve_fft<true>, and wsyn
-// from irfft_window(..., smooth=True).
-template <bool kSmooth = false, typename Load, typename Emit>
+// from irfft_window(..., smooth=True); kSeven as frames_rfft's.
+template <bool kSmooth = false, bool kSeven = false, typename Load, typename Emit>
 __device__ void frames_irfft(int n_frames, int stride, int n, FftSmem s, const float* wsyn,
                              int teams, Load load, Emit emit) {
-    frames_irfft_classes<kSmooth>(
+    frames_irfft_classes<kSmooth, kSeven>(
         n_frames, stride, n, s, wsyn, teams, [](const FftTeam&, bool, int, int, bool) {},
         [&](const FftTeam&, int r0, int r1, bool two, int k, float& ar, float& ai, float& br,
             float& bi) {

@@ -12,8 +12,8 @@
 //   (the encodes' and the roundtrips' kSmooth instances: the same four on the
 //   mixed-radix route, where fft_covers_smooth(n_fft): 1200, 960, 768, ...;
 //   their kSeven instances, with a radix-7 stage, where fft_covers_smooth7(n_fft)
-//   and n_fft has a factor 7: 896, 1344, 1680, ...; the decodes' kSmooth
-//   instances likewise, session_decode_fft_kernel<., true> below, without sevens)
+//   and n_fft has a factor 7: 896, 1344, 1680, ...; the decodes' kSmooth and
+//   kSeven instances likewise, session_decode_fft_kernel<., true[, true]> below)
 //   session_decode_kernel<., false>  <- _session_random_invert_kernel  (make_fused_random_invert;
 //                                       also the synthesis of the RT-PGHI sessions N and Q, with
 //                                       the recurrence's phases as its angles)
@@ -21,7 +21,9 @@
 //   session_decode_fft_kernel<false / true>
 //                                    <- the same two (and O's projection synthesis) where
 //                                       n_fft is a power of two from 64 to 4096 (the FFT route);
-//                                       its kSmooth instances where fft_covers_smooth(n_fft)
+//                                       its kSmooth instances where fft_covers_smooth(n_fft),
+//                                       its kSeven instances where fft_covers_smooth7(n_fft)
+//                                       and n_fft has a factor 7
 //   gl_polish_fft_kernel<., .>       <- the Griffin-Lim polish of _session_pghi_gl_kernel (O):
 //                                       every projection of a chunk in one launch, where n_fft
 //                                       is a power of two from 64 to 4096 (kSmooth = false) or
@@ -70,7 +72,9 @@
 // session_decode_fft_kernel, the synthesis half of the roundtrips' FFT route,
 // sincosf and two products a bin, no basis), and on the smooth route where
 // fft_covers_smooth(n_fft) its mixed-radix instance
-// (session_decode_fft_kernel<., true>).
+// (session_decode_fft_kernel<., true>), or where n_fft has a factor 7
+// (fft_covers_smooth7) its radix-7 instance (session_decode_fft_kernel<.,
+// true, true>).
 //
 // What bounds them on this card: the functions are bound by bytes (an FFT
 // per frame is 2.5 n_fft log2 n_fft operations, far below the fp32 ridge of
@@ -540,8 +544,10 @@ __host__ __device__ inline size_t decode_fft_smem_floats(int rows, int hop, int 
 // the chunks stored.  wsyn = the synthesis window / gain / n_fft.
 // kSmooth: the mixed-radix instance (fft_covers_smooth(n_fft): frames_irfft's
 // mixed-radix stages, twiddles j < fft_smooth_table(n), wsyn with the 1 / n
-// fold rounded once from float64; plan stream_step._decode_plan).
-template <bool kComplex, bool kSmooth = false>
+// fold rounded once from float64; plan stream_step._decode_plan); with
+// kSeven its radix-7 instance (fft_covers_smooth7(n_fft), n_fft with a
+// factor 7: 1344 = 7 3 4 4 4, 896 = 7 4 4 4 2), the rest alike.
+template <bool kComplex, bool kSmooth = false, bool kSeven = false>
 __global__ void __launch_bounds__(kThreads, 2) session_decode_fft_kernel(SessionArgs a) {
     extern __shared__ __align__(16) float smem[];
     const int m = a.overlap - 1, F = a.F, hop = a.hop, ov = a.overlap, T = a.T;
@@ -552,8 +558,8 @@ __global__ void __launch_bounds__(kThreads, 2) session_decode_fft_kernel(Session
     const int j_end = min(T, j0 + a.rows);
     const int n_frames = min(a.rows + 2 * ov, T + m - j0);
     float* out = smem;  // [rows][hop]
-    const FftSmem fs = carve_fft<kSmooth>(out + (size_t)a.rows * hop, n);
-    fft_stage<kSmooth>(a.wsyn, a.fft_tw, fs, n);  // wsyn in the window's slot
+    const FftSmem fs = carve_fft<kSmooth, kSeven>(out + (size_t)a.rows * hop, n);
+    fft_stage<kSmooth, kSeven>(a.wsyn, a.fft_tw, fs, n);  // wsyn in the window's slot
     for (int i = threadIdx.x; i < a.rows * hop; i += kThreads) out[i] = 0.0f;
     const int f0 = j0 - m;
     const float* mag = a.mag + (size_t)b * T * F;
@@ -561,7 +567,7 @@ __global__ void __launch_bounds__(kThreads, 2) session_decode_fft_kernel(Session
     const float* ang = kComplex ? nullptr : a.angles + (size_t)b * a.Ta * F;
     const int n_out = (j_end - j0) * hop;
     // frames_irfft starts with a barrier and ends with one
-    frames_irfft<kSmooth>(
+    frames_irfft<kSmooth, kSeven>(
         n_frames, ov, n, fs, fs.win, a.teams,
         [&](int r, int k, float& re, float& im) {
             const int f = f0 + r;
@@ -923,8 +929,9 @@ int att_session_roundtrip(const float* x, const float* angles, const float* wc, 
 // Ta, F) with Ta >= T; out (B, T * hop), every sample written.  teams > 0
 // selects the FFT route: n_fft = overlap hop a power of two from 64 to 4096
 // (1 <= teams <= 4096 / n_fft), or the smooth route where
-// fft_covers_smooth(n_fft) (1 <= teams <= fft_smooth_max_teams), F = n_fft /
-// 2 + 1, wsyn (n_fft,) the synthesis window / gain / n_fft
+// fft_covers_smooth7(n_fft) (1 <= teams <= fft_smooth_max_teams; the radix-7
+// instance where n_fft has a factor 7), F = n_fft / 2 + 1, wsyn (n_fft,) the
+// synthesis window / gain / n_fft
 // (frames_fft.irfft_window), fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft),
 // rows a multiple of 2 overlap; syn and Kp are not read.  teams == 0 selects
 // the product route: syn as for L, rows <= 40 output chunks per block; wsyn
@@ -936,9 +943,10 @@ int att_session_decode(const float* mag, const float* angles, const float* syn, 
     const int n_fft = overlap * hop;
     const bool fft = teams > 0;
     const bool smooth = fft && !fft_covers(n_fft);
+    const bool seven = smooth && n_fft % 7 == 0;
     const int max_teams = smooth ? fft_smooth_max_teams(n_fft) : fft_max_teams(n_fft);
     if (!session_args_ok(B, T, F, hop, overlap) || rows < 1 || (angles != nullptr && Ta < T) ||
-        (fft && ((smooth && !fft_covers_smooth(n_fft)) || F != n_fft / 2 + 1 || teams > max_teams ||
+        (fft && ((smooth && !fft_covers_smooth7(n_fft)) || F != n_fft / 2 + 1 || teams > max_teams ||
                  rows % (2 * overlap) != 0)) ||
         (!fft && (Kp % kSynKC != 0 || Kp < 2 * F || rows > 8 * 5))) {
         return (int)cudaErrorInvalidValue;
@@ -954,16 +962,18 @@ int att_session_decode(const float* mag, const float* angles, const float* syn, 
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
     if (fft) {
-#define ATT_LAUNCH_DECF(CPLX, SMOOTH)                                              \
-    do {                                                                           \
-        err = session_allow_smem(session_decode_fft_kernel<CPLX, SMOOTH>, smem);   \
-        if (err != cudaSuccess) return (int)err;                                   \
-        session_decode_fft_kernel<CPLX, SMOOTH><<<grid, kThreads, smem, s>>>(a);   \
+#define ATT_LAUNCH_DECF(CPLX, SMOOTH, SEVEN)                                              \
+    do {                                                                                  \
+        err = session_allow_smem(session_decode_fft_kernel<CPLX, SMOOTH, SEVEN>, smem);   \
+        if (err != cudaSuccess) return (int)err;                                          \
+        session_decode_fft_kernel<CPLX, SMOOTH, SEVEN><<<grid, kThreads, smem, s>>>(a);   \
     } while (0)
-        if (smooth) {
-            if (angles == nullptr) ATT_LAUNCH_DECF(true, true); else ATT_LAUNCH_DECF(false, true);
+        if (seven) {
+            if (angles == nullptr) ATT_LAUNCH_DECF(true, true, true); else ATT_LAUNCH_DECF(false, true, true);
+        } else if (smooth) {
+            if (angles == nullptr) ATT_LAUNCH_DECF(true, true, false); else ATT_LAUNCH_DECF(false, true, false);
         } else {
-            if (angles == nullptr) ATT_LAUNCH_DECF(true, false); else ATT_LAUNCH_DECF(false, false);
+            if (angles == nullptr) ATT_LAUNCH_DECF(true, false, false); else ATT_LAUNCH_DECF(false, false, false);
         }
 #undef ATT_LAUNCH_DECF
         return (int)cudaGetLastError();

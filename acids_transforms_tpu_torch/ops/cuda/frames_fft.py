@@ -19,10 +19,11 @@ H, full-K and under the taps' window), the Griffin-Lim steps (J, C, D, I),
 K's synthesis and O's polish also take the mixed-radix schedule wherever
 :func:`fft_covers_smooth` takes ``n_fft`` (even, ``2^a 3^b 5^c``, 64 to 4096,
 not a power of two: 1200, 960, 768, 400, 1920, ...; the Griffin-Lim steps,
-K's synthesis and the polish where their block fits too); R, N's encode, L
-and M also where :func:`fft_covers_smooth7` does (a factor 7 as well: 896,
-1344, 1680, 1764, ...; L and M where their block fits), with a radix-7
-stage; every other ``n_fft`` keeps the window-folded products of
+K's synthesis and the polish where their block fits too); R, N's encode, L,
+M and the streaming decodes (P, S, O's projection synthesis) also where
+:func:`fft_covers_smooth7` does (a factor 7 as well: 896, 1344, 1680, 1764,
+...; L and M where their block fits), with a radix-7 stage; every other
+``n_fft`` keeps the window-folded products of
 ``dft_common.cuh`` and ``synth_ola.cuh`` (and A, B, G and H their factored
 front end; O's polish the two-launch projection).
 
@@ -91,8 +92,9 @@ def fft_covers(n_fft: int) -> bool:
     """Whether the FFT route takes ``n_fft``: a power of two from 64 to 4096.
     Elsewhere R, L, M, the decodes, E and F (with A and B), G and H, J, C, D,
     I, K's synthesis and O's polish take the smooth route where
-    :func:`fft_covers_smooth` does (R, N's encode, L and M where
-    :func:`fft_covers_smooth7` does), and the products (A, B, G and H the
+    :func:`fft_covers_smooth` does (R, N's encode, L, M and the decodes P, S
+    and O's projection synthesis where :func:`fft_covers_smooth7` does), and
+    the products (A, B, G and H the
     factored front end, O's polish the two-launch projection) at every other
     ``n_fft``."""
     n = int(n_fft)
@@ -115,9 +117,10 @@ def fft_covers_smooth7(n_fft: int) -> bool:
     """Whether the mixed-radix route with its radix-7 stage takes ``n_fft``:
     even, ``2^a 3^b 5^c 7^d`` (``a >= 1``), from 64 to 4096, and not a power
     of two; every size :func:`fft_covers_smooth` takes, and those with a
-    factor 7 (896, 1344, 1680, 1764, ...).  R, the magnitude encode, L and M
-    (L and M where their block fits) take it; every other kernel keeps
-    :func:`fft_covers_smooth`."""
+    factor 7 (896, 1344, 1680, 1764, ...).  R, the magnitude encode, L, M
+    (L and M where their block fits) and the streaming decodes P, S and O's
+    projection synthesis take it; every other kernel (O's polish among them)
+    keeps :func:`fft_covers_smooth`."""
     return _smooth(n_fft, (2, 3, 5, 7))
 
 
@@ -310,7 +313,9 @@ def class_plan_smooth(n_fft: int, hop: int, smem_bytes: Callable[[int, int], int
     960/240 0.68 ms, 8 of 4 FFTs 1.03); the decode's instance (64 registers,
     so 4 blocks an SM) took its fastest plan at all five with ``blocks=4``,
     up to 1.2x slower ones with 2 (400/100: 56 chunks of 8 FFTs 0.45 ms, 48
-    chunks, three blocks an SM, 0.37)."""
+    chunks, three blocks an SM, 0.37); its radix-7 instance (80 registers,
+    so ``blocks=3``) the fastest at 1344/336, 1792/448 and 1680/420 and
+    within 3 % of it at 896/224 (48 chunks of 4 FFTs against 24)."""
     ov = n_fft // hop
     best, score = None, 0.0
     teams = 1

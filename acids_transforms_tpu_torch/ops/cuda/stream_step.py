@@ -31,9 +31,10 @@ to three kernel launches instead of a Python loop of small ops per chunk
   synthesis take the FFT route where ``fft_covers(n_fft)``
   (``csrc/stream_step.cu:session_decode_fft_kernel``: ``frames_irfft`` of
   the input spectra, the roundtrips' synthesis; :func:`_decode_plan`), the
-  smooth route (its mixed-radix instance) where ``fft_covers_smooth(n_fft)``,
-  the synthesis product elsewhere (at 1344 = 2^6 3 7 too: the decodes have
-  no radix-7 instance);
+  smooth route (its mixed-radix instance) where ``fft_covers_smooth7(n_fft)``
+  (its radix-7 instance where ``n_fft`` has a factor 7: 1344, 896, ...), the
+  synthesis product elsewhere (1408 = 2^7 11, odd sizes, above 4096): the
+  rule reads ``n_fft`` alone;
 * ``make_fused_pghi_roundtrip`` (N): the phaseless RT-PGHI roundtrip, three
   launches: the magnitude encode (R's analysis with an ``|X|`` epilogue), the
   recurrence (``csrc/pghi.cu:rt_pghi_phases_kernel``, one block per session:
@@ -55,10 +56,11 @@ to three kernel launches instead of a Python loop of small ops per chunk
   commit and the carries in small tensor operations; P's synthesis of every
   committed frame ends the session.  The polish is one launch a chunk where
   :func:`_polish_plan` takes the grid (``gl_polish_fft_kernel``, its
-  mixed-radix instance where ``fft_covers_smooth(n_fft)``: a block per
-  session runs all ``gl_iterations`` projections with the grid in shared
-  memory, ``frames_irfft`` into an overlap-add signal in shared memory, then
-  ``frames_rfft`` of the re-framed rows and ``atan2``; plain version
+  mixed-radix instance where ``fft_covers_smooth(n_fft)``, none with a
+  radix-7 stage: a block per session runs all ``gl_iterations`` projections
+  with the grid in shared memory, ``frames_irfft`` into an overlap-add
+  signal in shared memory, then ``frames_rfft`` of the re-framed rows and
+  ``atan2``; plain version
   :func:`gl_polish_reference`), elsewhere two launches a projection: P's
   kernel with the basis divided by ``overlap``, then
   ``gl_project_analysis_kernel`` (the re-framed analysis as a product,
@@ -379,24 +381,25 @@ def session_route(n_fft: int, kind: str, hop: Optional[int] = None) -> str:
     """The route of the session kernel ``kind`` at ``n_fft``: ``"fft"`` where
     ``fft_covers`` (a power of two from 64 to 4096), ``"smooth"`` where
     ``fft_covers_smooth`` (the mixed-radix instance), else ``"product"``;
-    the encodes (``"encode"``: R and the magnitude encode) and the roundtrips
-    (``"roundtrip"``: L and M) also take ``"smooth"`` where
-    ``fft_covers_smooth7`` (a factor 7: their radix-7 instance), the
+    the encodes (``"encode"``: R and the magnitude encode), the decodes
+    (``"decode"``: P, S, O's projection synthesis, so N's and Q's synthesis)
+    and the roundtrips (``"roundtrip"``: L and M) also take ``"smooth"``
+    where ``fft_covers_smooth7`` (a factor 7: their radix-7 instance), the
     roundtrips only where the smooth block fits at ``hop`` (at 4032 with
     overlap 4, 6, 7 and 8 it does not, the product block does; every encode
-    block fits).  The decodes (``"decode"``: P, S, O's projection synthesis)
-    keep ``fft_covers_smooth``, and so does the polish (``"polish"``), where
-    :func:`_polish_plan` holds the grid (it has no product route).  Every
-    caller names its kind: the C++ entries of R and L take the sevens, the
-    others do not."""
+    and decode block fits, so their rule reads ``n_fft`` alone).  The polish
+    (``"polish"``) keeps ``fft_covers_smooth``, where :func:`_polish_plan`
+    holds the grid (it has no product route; at 1344 O runs the two-launch
+    projection).  Every caller names its kind: the C++ entries of R, L and
+    the decodes take the sevens, the polish's does not."""
     if kind not in SESSION_ROUTE_KINDS:
         raise ValueError("session_route: kind %r is none of %s" % (kind, SESSION_ROUTE_KINDS))
     if fft_covers(n_fft):
         return "fft"
     if fft_covers_smooth(n_fft):
         return "smooth"
-    if kind in ("encode", "roundtrip") and fft_covers_smooth7(n_fft):
-        if kind == "encode":
+    if kind != "polish" and fft_covers_smooth7(n_fft):
+        if kind != "roundtrip":
             return "smooth"
         if hop is None:
             raise ValueError("the roundtrip's route at n_fft=%d reads the hop" % int(n_fft))
@@ -527,6 +530,12 @@ def _roundtrip_fft_plan(n_fft: int, hop: int, smooth: bool) -> Optional[Tuple[in
     return plan(n_fft, hop, lambda r, teams: _roundtrip_fft_smem_bytes(r, overlap, hop, teams))
 
 
+#: blocks an SM the decode's radix-7 instance
+#: (``session_decode_fft_kernel<., true, true>``) runs at the registers its
+#: build takes: 256 threads, 65536 registers an SM
+DECODE_SEVEN_BLOCKS = 3
+
+
 @functools.lru_cache(maxsize=None)
 def _decode_plan(n_fft: int, hop: int, rows: Optional[int] = None) -> Optional[Tuple[int, int]]:
     """``(rows, teams)`` of the decode's launch (P, S, O's projection
@@ -536,7 +545,9 @@ def _decode_plan(n_fft: int, hop: int, rows: Optional[int] = None) -> Optional[T
     SM); the smooth route (``fft_covers_smooth(n_fft)``)
     ``frames_fft.class_plan_smooth``'s with up to four blocks an SM (its
     instance takes 64 registers: 40 chunks of 2 FFTs at 1200/300, 24 of 4 at
-    960/240 and 768/192, the fastest of a sweep of every plan on an H100);
+    960/240 and 768/192, the fastest of a sweep of every plan on an H100),
+    and its radix-7 instance (``fft_covers_smooth7(n_fft)``, a factor 7)
+    with up to :data:`DECODE_SEVEN_BLOCKS` (what its registers allow);
     for narrow blocks on either (``rows`` given: O's projection, so that one
     session's grid spreads over several SMs) the smallest multiple of ``2
     overlap`` at least ``rows`` (8 chunks at 1024/256 and 1200/300), with as
@@ -556,7 +567,8 @@ def _decode_plan(n_fft: int, hop: int, rows: Optional[int] = None) -> Optional[T
     if rows is None:
         if route == "fft":
             return class_plan(n_fft, hop, smem, widest=max(64, 2 * overlap))
-        return class_plan_smooth(n_fft, hop, smem, widest=max(64, 2 * overlap), blocks=4)
+        blocks = DECODE_SEVEN_BLOCKS if n_fft % 7 == 0 else 4
+        return class_plan_smooth(n_fft, hop, smem, widest=max(64, 2 * overlap), blocks=blocks)
     r = -(-int(rows) // (2 * overlap)) * 2 * overlap
     teams = fft_max_teams(n_fft) if route == "fft" else fft_smooth_max_teams(n_fft)
     while teams >= 1:
@@ -754,10 +766,10 @@ def session_encode_reference(x2d, window, n_fft: int, hop: int, n_frames: int):
 
 def _decode_operands(inv_window: torch.Tensor, gain: float, n_fft: int, hop: int):
     """What the decode reads besides the spectra, ``(syn, wsyn, twiddles)``:
-    on the FFT and smooth routes the synthesis window over the gain and
-    ``n_fft`` (``frames_fft.irfft_window``, the smooth route's fold rounded
-    once) and the twiddle table, on the product route the basis of
-    :func:`_syn_basis`."""
+    on the FFT and smooth routes (the radix-7 instance's too) the synthesis
+    window over the gain and ``n_fft`` (``frames_fft.irfft_window``, the
+    smooth route's fold a float64 division rounded once) and the twiddle
+    table, on the product route the basis of :func:`_syn_basis`."""
     route = session_route(n_fft, "decode")
     if route != "product":
         (tw,) = _tables(fft_twiddles, inv_window.device, n_fft)
@@ -781,7 +793,8 @@ def _synthesize_fft(re, im, inv_window, gain: float, n_fft: int, hop: int, T: in
     synthesis window over the gain; the samples of the frames before 0
     dropped, the overlap-add in class order ``(f + overlap - 1) mod
     overlap``, cut at ``T * hop``.  ``smooth``: the smooth route (the
-    mixed-radix schedule)."""
+    mixed-radix schedule, with its radix-7 stage where ``n_fft`` has a
+    factor 7)."""
     m = n_fft // hop - 1
     lead = re.new_zeros(re.shape[:-2] + (m, re.shape[-1]))
     wsyn = irfft_window(inv_window.to(device=re.device, dtype=torch.float32) / gain, n_fft, smooth)
@@ -793,7 +806,8 @@ def _synthesize_fft(re, im, inv_window, gain: float, n_fft: int, hop: int, T: in
 def _synthesis_reference(re, im, inv_window, gain: float, n_fft: int, hop: int, T: int) -> torch.Tensor:
     """The plain synthesis of the route ``n_fft`` picks (:func:`session_route`):
     :func:`_synthesize_fft` on the FFT and smooth routes (``smooth=True`` on
-    the latter), else :func:`_synthesize`."""
+    the latter: the mixed-radix schedule, its radix-7 stage where ``n_fft``
+    has a factor 7), else :func:`_synthesize`."""
     route = session_route(n_fft, "decode")
     if route == "product":
         return _synthesize(re, im, inv_window, gain, n_fft, hop, T)
@@ -1056,7 +1070,9 @@ def _launch_roundtrip(x2d, angles, ops, n_fft, hop, T) -> torch.Tensor:
 def _launch_decode(mag, angles, ops, n_fft, hop, rows=None, name=None) -> torch.Tensor:
     """P: ``mag (B, T, F)`` with ``angles (B, >= T, F)``; S (``angles=None``):
     ``mag`` is the spectrum as ``(B, T, F, 2)`` floats.  ``ops``:
-    :func:`_decode_operands`, whose route :func:`session_route` picks.
+    :func:`_decode_operands`, whose route :func:`session_route` picks (the
+    radix-7 instance where ``n_fft`` has a factor 7; counted under
+    ``<name>:smooth``).
     ``rows`` output chunks per block for narrow blocks (default: the plan's),
     ``name`` the counter."""
     _require("decode", n_fft, hop)

@@ -30,11 +30,11 @@ measurement).  The parts:
   chunk scan on ``--sessions`` mono sessions of ``--session-seconds`` s of
   ``OverlapAdd + RealtimeSTFT`` at each of :data:`STREAM_SHAPES`: 1024/256
   (chunks of 4096, the FFT route), 1200/300 (chunks of 4800, 16 frames as
-  at 1024; the smooth route) and 1344/336 (chunks of 5376; the encodes and
-  the roundtrips on the smooth route's radix-7 stage, the decodes and O's
-  projections on the products); the encode, the complex roundtrip and
-  decode, and the roundtrip and decode of ``random``, ``pghi``, ``pghi_gl``
-  and ``sinebank``; the host's clock to the card's end, median of 3 runs
+  at 1024; the smooth route) and 1344/336 (chunks of 5376; the encodes, the
+  roundtrips and the decodes on the smooth route's radix-7 stage, O's
+  two-launch projection's analysis on its product); the encode, the
+  complex roundtrip and decode, and the roundtrip and decode of ``random``,
+  ``pghi``, ``pghi_gl`` and ``sinebank``; the host's clock to the card's end, median of 3 runs
   (the generic scans are host loops).  A generic scan that took over 15 s
   at one batch is not run at the next of that shape, and the skip is
   recorded.

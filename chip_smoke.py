@@ -66,9 +66,9 @@ have two routes, picked by n_fft alone: a shared-memory FFT
 for the syntheses of C, D, I, J, L, M, K, P, S and O) at a power of two
 from 64 to 4096, the window-folded products elsewhere (R, L, M, P, S,
 O's synthesis, E, F, G, H, J, C, D, I and K's synthesis take a third route,
-the mixed-radix FFT, at even 5-smooth n_fft; R, the magnitude encode, L and
-M also at even 7-smooth n_fft with a factor 7, on their radix-7 instances,
-the roundtrips where their block fits); so do the log-mel
+the mixed-radix FFT, at even 5-smooth n_fft; R, the magnitude encode, L,
+M, P, S and O's synthesis also at even 7-smooth n_fft with a factor 7, on
+their radix-7 instances, the roundtrips where their block fits); so do the log-mel
 forward and fit (A and B: E's and F's FFT and smooth instances under the
 taps' own window, the factored front end elsewhere), the representations' forward
 and fit statistics with taps (G and H: G and H full-K's FFT and smooth
@@ -84,11 +84,12 @@ under hann, hamming and blackman) and against a float64 oracle at 1024, 512,
 2048 and 4096 (C, D, I, K, G, H, P, S and O's synthesis at every power of
 two from 64), the factored route at 896/224 (A, B, G, H), and
 the product route at 896/224 (E, F, G, H, J, C, D, I, K),
-8192/2048 (J), 1344/336 (P, S, O's synthesis) and 1408/352 (R, L, M, P),
+8192/2048 (J) and 1408/352 (R, L, M, P, S, O's synthesis),
 and the smooth route of R, L, M, P, S, O's synthesis and O's polish (the
 mixed-radix FFT) at 1200/300, 960/240, 768/192, 400/100 and 1920/480, and
-of R, the magnitude encode, L and M (its radix-7 instances) at 1344/336
-and 896/224, bit-identical to its plain version, of E and F (A and B under hann and blackman taps) at
+of R, the magnitude encode, L, M, P, S and O's synthesis (its radix-7
+instances) at 1344/336 and 896/224 (L, M, P, S and O's synthesis also at
+overlap 2, 3, 5, 6, 7 and 8), bit-identical to its plain version, of E and F (A and B under hann and blackman taps) at
 768/256, 768/192, 640/160, 384/96, 1536/384, 1920/480 and 3072/768 (|X| and
 the extrema bit-identical, the mel product's and the sums' order aside), of
 J, C, D and I at those seven framings (bit-identical, D to four C, every
@@ -104,9 +105,11 @@ drives the smooth, product and factored routes through the entry points
 (1200/300 sessions: R, L, M, the magnitude encode, the decodes and, in
 ``pghi_gl``, O's polish on the smooth route, one launch a chunk; a 3072/768
 ``pghi_gl`` grid of 3 + 40 + 3 frames, which no polish block holds, on the
-two-launch projection; 1344/336 sessions: R, L, M and the magnitude encode
-on the smooth route's radix-7 instances, the decodes on the product route;
-1408/352 sessions: R, L, M and the magnitude encode on the product route;
+two-launch projection; 1344/336 sessions: R, L, M, the magnitude encode
+and the decodes (O's two-launch synthesis among them) on the smooth
+route's radix-7 instances, O's analysis on its product;
+1408/352 sessions: R, L, M, the magnitude encode and the decodes (O's
+two-launch synthesis among them) on the product route;
 ``STFT(1200, 300)`` and ``DGT(768, 256)``
 ``pghi`` inverts: K's synthesis on the smooth route, ``DGT(896, 224)`` on
 the product route; STFT(768, 192) and STFT(896, 224)
@@ -178,11 +181,13 @@ SMOOTH_SHAPES = ((768, 256), (768, 192), (640, 160), (384, 96), (1536, 384), (19
 # the session framings of the smooth route (R, L, M, the decodes, O's polish):
 # 2^4 3 5^2, 2^6 3 5, 2^8 3, 2^4 5^2, 2^7 3 5 at overlap 4
 SESSION_SMOOTH_SHAPES = ((1200, 300), (960, 240), (768, 192), (400, 100), (1920, 480))
-# the framings of R's and L's radix-7 instances whose plans phase 5 sweeps:
-# 2^7 7, 2^6 3 7, 2^8 7, 2^4 3 5 7 at overlap 4
+# the framings of R's, L's and the decode's radix-7 instances whose plans
+# phase 5 sweeps: 2^7 7, 2^6 3 7, 2^8 7, 2^4 3 5 7 at overlap 4
 SEVEN_SHAPES = ((896, 224), (1344, 336), (1792, 448), (1680, 420))
-# the kernels with a radix-7 instance (R, the magnitude encode, L, M), by their launch counters' names
-SEVEN_KERNELS = ("session_encode", "session_magnitude", "session_roundtrip", "session_random_roundtrip")
+# the kernels with a radix-7 instance (R, the magnitude encode, L, M, P, S,
+# O's synthesis), by their launch counters' names
+SEVEN_KERNELS = ("session_encode", "session_magnitude", "session_roundtrip", "session_random_roundtrip",
+                 "session_random_decode", "session_complex_decode", "gl_project_synthesis")
 
 
 def log(msg: str) -> None:
@@ -239,18 +244,19 @@ def smooth_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
 
 
 def seven_plan_sweep(sx: torch.Tensor, repeats: int) -> dict:
-    """R and L / M on the smooth route's radix-7 instances at each of
+    """R, L / M and P / S on the smooth route's radix-7 instances at each of
     SEVEN_SHAPES under every plan the kernels take (R: 2 to 64 frames a
-    block x 1, 2, 4 ... FFTs side by side; L / M: a multiple of 2 overlap
-    chunks up to 64 x as many FFTs; each up to the route's teams and within
-    shared memory), on ``sx``'s sessions in chunks of 8 frames, the card's
-    time a call back to back (device_ms); every plan's output must be
-    bit-identical to the rule's (a block's frame pairs are the session's).
-    Returns per shape the rows, the rule's picks and the fastest plans."""
+    block x 1, 2, 4 ... FFTs side by side; L / M and P / S: a multiple of 2
+    overlap chunks up to 64 x as many FFTs; each up to the route's teams and
+    within shared memory), on ``sx``'s sessions in chunks of 8 frames (P and
+    S on as many frames of random magnitudes and angles), the card's time a
+    call back to back (device_ms); every plan's output must be bit-identical
+    to the rule's (a block's frame pairs are the session's).  Returns per
+    shape the rows, the rule's picks and the fastest plans."""
     from acids_transforms_tpu_torch import transforms as T
     from acids_transforms_tpu_torch.ops.cuda import frames_fft as ff, stream_step as ss
 
-    rule_e, rule_r = ss._encode_plan, ss._roundtrip_plan
+    rule_e, rule_r, rule_d = ss._encode_plan, ss._roundtrip_plan, ss._decode_plan
     out = {}
     try:
         for n_fft, hop in SEVEN_SHAPES:
@@ -269,9 +275,19 @@ def seven_plan_sweep(sx: torch.Tensor, repeats: int) -> dict:
 
             def rt_m():
                 return ss._launch_roundtrip(sx, ang, r_ops, n_fft, hop, Tn)
-            pick_e, pick_r = rule_e(n_fft, hop), rule_r(n_fft, hop)
-            ref_e, ref_l, ref_m = enc(), rt_l(), rt_m()
-            e_rows, r_rows, teams = [], [], 1
+            mag = torch.rand(ang.shape, device=sx.device,
+                             generator=torch.Generator(device=sx.device).manual_seed(hop))
+            spec_ri = torch.view_as_real(torch.polar(mag, ang)).contiguous()
+            d_ops = ss._decode_operands(chain[1].inv_window, float(chain[0].gain_compensation), n_fft, hop)
+
+            def dec_p():
+                return ss._launch_decode(mag, ang, d_ops, n_fft, hop)
+
+            def dec_s():
+                return ss._launch_decode(spec_ri, None, d_ops, n_fft, hop)
+            pick_e, pick_r, pick_d = rule_e(n_fft, hop), rule_r(n_fft, hop), rule_d(n_fft, hop)
+            ref_e, ref_l, ref_m, ref_p, ref_s = enc(), rt_l(), rt_m(), dec_p(), dec_s()
+            e_rows, r_rows, d_rows, teams = [], [], [], 1
             while teams <= ff.fft_smooth_max_teams(n_fft):
                 for rows in (2, 4, 8, 16, 32, 64):
                     smem = ss._encode_fft_smem_bytes(rows, hop, n_fft, teams)
@@ -293,19 +309,33 @@ def seven_plan_sweep(sx: torch.Tensor, repeats: int) -> dict:
                                        blocks=min(2, ff.SM_SMEM // (smem + 1024)), l_ms=device_ms(rt_l, repeats),
                                        m_ms=device_ms(rt_m, repeats)))
                     ss._roundtrip_plan = rule_r
+                for rows in range(2 * ov, 65, 2 * ov):
+                    smem = ss._decode_fft_smem_bytes(rows, hop, n_fft, teams)
+                    if smem > ff.MAX_SMEM:
+                        break
+                    ss._decode_plan = lambda *a, p=(rows, teams): p
+                    require(torch.equal(dec_p(), ref_p) and torch.equal(dec_s(), ref_s),
+                            f"P / S {n_fft}/{hop}: plan {(rows, teams)} changes the output")
+                    d_rows.append(dict(rows=rows, teams=teams, smem_kb=smem / 1024.0,
+                                       blocks=min(ss.DECODE_SEVEN_BLOCKS, ff.SM_SMEM // (smem + 1024)),
+                                       p_ms=device_ms(dec_p, repeats), s_ms=device_ms(dec_s, repeats)))
+                    ss._decode_plan = rule_d
                 teams *= 2
             best_e = min(e_rows, key=lambda r: r["ms"])
             best_r = min(r_rows, key=lambda r: r["l_ms"] + r["m_ms"])
+            best_d = min(d_rows, key=lambda r: r["p_ms"] + r["s_ms"])
             mine_e = next(r for r in e_rows if (r["rows"], r["teams"]) == pick_e)
             mine_r = next(r for r in r_rows if (r["rows"], r["teams"]) == pick_r)
+            mine_d = next(r for r in d_rows if (r["rows"], r["teams"]) == pick_d)
             out[f"{n_fft}/{hop}"] = dict(
-                encode=e_rows, roundtrip=r_rows, frames=Tn, pick_e=pick_e, pick_r=pick_r,
-                best_e=(best_e["rows"], best_e["teams"]), best_r=(best_r["rows"], best_r["teams"]),
-                over_e=mine_e["ms"] / best_e["ms"] - 1.0,
-                over_r=(mine_r["l_ms"] + mine_r["m_ms"]) / (best_r["l_ms"] + best_r["m_ms"]) - 1.0)
-            del ref_e, ref_l, ref_m
+                encode=e_rows, roundtrip=r_rows, decode=d_rows, frames=Tn, pick_e=pick_e, pick_r=pick_r,
+                pick_d=pick_d, best_e=(best_e["rows"], best_e["teams"]), best_r=(best_r["rows"], best_r["teams"]),
+                best_d=(best_d["rows"], best_d["teams"]), over_e=mine_e["ms"] / best_e["ms"] - 1.0,
+                over_r=(mine_r["l_ms"] + mine_r["m_ms"]) / (best_r["l_ms"] + best_r["m_ms"]) - 1.0,
+                over_d=(mine_d["p_ms"] + mine_d["s_ms"]) / (best_d["p_ms"] + best_d["s_ms"]) - 1.0)
+            del ref_e, ref_l, ref_m, ref_p, ref_s, mag, spec_ri
     finally:
-        ss._encode_plan, ss._roundtrip_plan = rule_e, rule_r
+        ss._encode_plan, ss._roundtrip_plan, ss._decode_plan = rule_e, rule_r, rule_d
     return out
 
 
@@ -682,16 +712,19 @@ def k_polish_smooth_resources(res: dict) -> dict:
 
 
 def session_seven_resources(res: dict) -> dict:
-    """The build log's resources of R's, the magnitude encode's, L's and M's
-    radix-7 instances (``session_encode_kernel<kMag, true, true, true>``,
-    ``session_roundtrip_fft_kernel<kRandom, true, true>``), by the labels
-    ``R``, ``N``, ``L``, ``M``."""
+    """The build log's resources of R's, the magnitude encode's, L's, M's, P's
+    and S's radix-7 instances (``session_encode_kernel<kMag, true, true,
+    true>``, ``session_roundtrip_fft_kernel<kRandom, true, true>``,
+    ``session_decode_fft_kernel<kComplex, true, true>``: P's is O's
+    synthesis too), by the labels ``R``, ``N``, ``L``, ``M``, ``P``, ``S``."""
     out = {}
     for k, v in res.items():
         for kern, label in (("session_encode_kernelILb0ELb1ELb1ELb1EE", "R"),
                             ("session_encode_kernelILb1ELb1ELb1ELb1EE", "N"),
                             ("session_roundtrip_fft_kernelILb0ELb1ELb1EE", "L"),
-                            ("session_roundtrip_fft_kernelILb1ELb1ELb1EE", "M")):
+                            ("session_roundtrip_fft_kernelILb1ELb1ELb1EE", "M"),
+                            ("session_decode_fft_kernelILb0ELb1ELb1EE", "P"),
+                            ("session_decode_fft_kernelILb1ELb1ELb1EE", "S")):
             if kern in k:
                 out[label] = v
     return out
@@ -708,7 +741,7 @@ def smooth_instance_resources(res: dict) -> dict:
     out.update(gl_smooth_resources(res))
     for k, v in res.items():
         if ("pghi_synthesize_fft_kernelILb1EE" in k or "gl_polish_fft_kernelIL" in k and "ELb1EE" in k
-                or "session_decode_fft_kernelIL" in k and "ELb1EE" in k
+                or "session_decode_fft_kernelIL" in k and ("ELb1ELb0EE" in k or "ELb1ELb1EE" in k)
                 or "session_encode_kernelILb" in k and ("ELb1ELb1ELb0EE" in k or "ELb1ELb1ELb1EE" in k)
                 or "session_roundtrip_fft_kernelIL" in k and ("ELb1ELb0EE" in k or "ELb1ELb1EE" in k)):
             out[k] = v
@@ -1459,15 +1492,14 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     check_kernels("512/128, 3 x 20000 (ragged)", 512, 128, sx[:3, :20000].contiguous(), 2048)
     check_kernels("2048/512, 2 x 30000 (ragged)", 2048, 512, sx[:2, :30000].contiguous(), 4096)
     # the smooth route (R, L, M, P) at five shapes users frame audio in at
-    # 48 kHz (25, 20, 16, 8.3 and 40 ms); the radix-7 instances of R, L and M
-    # at 1344/336 (2^6 3 7: 28 ms at 48 kHz) and 896/224 (2^7 7: 56 ms at 16
-    # kHz), bit-identical to their plain versions, P on its product route
-    # there, and at 1764/588 (2^2 3^2 7^2, 40 ms at 44.1 kHz, overlap 3); the
-    # radix-7 instances at every other overlap the roundtrip gate takes:
-    # 4032/2016 (overlap 2), 1680/336 (5), 1344/224 (6), 3528/504 (7: two
-    # sevens) and 1344/168 (8), each L and M against the float64 oracle under
-    # the chain's own gain (overlap); the product route of R, L, M and P at
-    # 1408/352 (2^7 11)
+    # 48 kHz (25, 20, 16, 8.3 and 40 ms); the radix-7 instances of R, L, M
+    # and P at 1344/336 (2^6 3 7: 28 ms at 48 kHz) and 896/224 (2^7 7: 56 ms
+    # at 16 kHz), bit-identical to their plain versions, and at 1764/588
+    # (2^2 3^2 7^2, 40 ms at 44.1 kHz, overlap 3); the radix-7 instances at
+    # every other overlap the roundtrip gate takes: 4032/2016 (overlap 2),
+    # 1680/336 (5), 1344/224 (6), 3528/504 (7: two sevens) and 1344/168 (8),
+    # each L and M against the float64 oracle under the chain's own gain
+    # (overlap); the product route of R, L, M and P at 1408/352 (2^7 11)
     for n_s, hop_s in ((1200, 300), (960, 240), (768, 192), (400, 100), (1920, 480)):
         check_kernels(f"{n_s}/{hop_s}, 4 x 40000 (ragged)", n_s, hop_s, sx[:4, :40000].contiguous(), 2 * n_s)
     check_kernels("1344/336, 4 x 40000 (ragged)", 1344, 336, sx[:4, :40000].contiguous(), 2688)
@@ -1487,11 +1519,20 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     # cos on the card; measured bit-identical) and a float64 oracle (irfft
     # times the synthesis window over the gain, overlap-added: 1e-5); O's
     # narrow blocks too; the smooth route at the five shapes of the encode's
-    # and the roundtrips' smooth route, bit-identical to its plain version;
-    # the product route at 1344/336 against its plain version (2e-5: fp32
-    # products in another order than cuBLAS) and the oracle
+    # and the roundtrips' smooth route, and its radix-7 instance at 1344/336,
+    # 896/224 and every other overlap the gate takes (4032/2016, 1680/336,
+    # 1344/224, 3528/504, 1344/168), bit-identical to its plain version; the
+    # product route at 1408/352 (2^7 11) against its plain version (2e-5: fp32
+    # products in another order than cuBLAS) and the oracle.  P and S take
+    # the chain's gain (OverlapAdd's gain_compensation, the overlap), O's
+    # synthesis the overlap, the kernel, its plain version and the oracle
+    # the same operands
+    def chain_gain(n_fft, hop):
+        return float(T.OverlapAdd(n_fft, hop).gain_compensation)
+
     def check_decode_routes(n_fft, hop, B=3, T=45):
         Fb, ov = n_fft // 2 + 1, n_fft // hop
+        gain = chain_gain(n_fft, hop)
         front = ss.session_route(n_fft, "decode")
         fft = front != "product"
         g = sgen(n_fft + hop)
@@ -1502,8 +1543,8 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         spec[..., -1] -= 0.25j
         inv_w = torch.hann_window(n_fft, device=dev)
         msg = []
-        for key, gain, rows, kname in (("P", 4.0, None, "session_random_decode"),
-                                       ("S", 4.0, None, "session_complex_decode"),
+        for key, gain, rows, kname in (("P", gain, None, "session_random_decode"),
+                                       ("S", gain, None, "session_complex_decode"),
                                        ("Osyn", float(ov), ss.PROJECT_SYN_ROWS, "gl_project_synthesis")):
             ops = ss._decode_operands(inv_w, gain, n_fft, hop)
             ss.reset_launches()
@@ -1535,9 +1576,10 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
             require(e_p <= tol and e_o <= 1e-5, f"{key} {n_fft}/{hop}: out of budget")
             require(torch.equal(k_out, p_out) or front != "smooth",
                     f"{key} {n_fft}/{hop}: the smooth route is not bit-identical to its plain version")
-            k = key if front == "fft" else key + "_" + front
+            k = key if front == "fft" else key + "_" + front + ("7" if front == "smooth" and n_fft % 7 == 0 else "")
             errs[k] = max(errs.get(k, 0.0), abs_err(k_out, p_out))
-        log(f"  decodes {n_fft}/{hop} ({front} route, {B} x {T} frames): " + "; ".join(msg))
+        log(f"  decodes {n_fft}/{hop} ({front} route{', radix 7' if n_fft % 7 == 0 and front == 'smooth' else ''}, "
+            f"{B} x {T} frames): " + "; ".join(msg))
 
     for n_fft in (64, 128, 256, 512, 1024, 2048, 4096):
         check_decode_routes(n_fft, n_fft // 4)
@@ -1545,7 +1587,12 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
     check_decode_routes(4096, 2048)
     for n_s in (1200, 960, 768, 400, 1920):
         check_decode_routes(n_s, n_s // 4)
-    check_decode_routes(1344, 336)
+    for n_s, hop_s in ((1344, 336), (896, 224), (4032, 2016), (1680, 336), (1344, 224), (3528, 504), (1344, 168)):
+        require(ss.session_route(n_s, "decode") == "smooth", f"{n_s}/{hop_s}: the decodes must take the radix-7 "
+                "instance")
+        check_decode_routes(n_s, hop_s)
+    require(ss.session_route(1408, "decode") == "product", "1408/352: the decodes must take the product route")
+    check_decode_routes(1408, 352)
     ss.reset_launches()
 
     # R and the magnitude encode on the FFT route (fft_smem.cuh:frames_rfft)
@@ -2360,17 +2407,20 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     counts["gl_project_analysis"] += n_cht * iters_t          # O's analysis row counts these
     del y_t, y_tg
 
-    # R, L, M and the magnitude encode on the smooth route's radix-7
-    # instances, the decodes and O's projections on the product route: the
-    # same sessions at 1344/336 (2^6 3 7: 28 ms at 48 kHz)
+    # R, L, M, the magnitude encode and the decodes (P, S and O's two-launch
+    # synthesis) on the smooth route's radix-7 instances, O's projection
+    # analysis on its product (the polish keeps 5-smooth): the same sessions
+    # at 1344/336 (2^6 3 7: 28 ms at 48 kHz); the decodes within 1e-4 of the
+    # generic scan
     n_x, hop_x, chunk_x = 1344, 336, 2688
     xs_x = mono[:4, :8 * chunk_x].contiguous()
     chain_x = T.OverlapAdd(n_x, hop_x) + T.RealtimeSTFT(n_fft=n_x, hop_length=hop_x)
     c_px = T.OverlapAdd(n_x, hop_x, device="cpu") + T.RealtimeSTFT(n_fft=n_x, hop_length=hop_x, device="cpu")
     ssx = stream["ss"]
     require(ssx.session_route(n_x, "encode") == "smooth" and ssx.session_route(n_x, "roundtrip", hop_x) == "smooth"
-            and ssx.session_route(n_x, "decode") == "product",
-            "1344/336: the encodes and the roundtrips must take the smooth route, the decodes the product")
+            and ssx.session_route(n_x, "decode") == "smooth" and ssx.session_route(n_x, "polish") == "product",
+            "1344/336: the encodes, the roundtrips and the decodes must take the smooth route, the polish the "
+            "two-launch projection")
     y_x = route("1344/336 complex roundtrip (the smooth route, radix 7)",
                 lambda: streaming.scan_roundtrip(chain_x, xs_x, chunk_x), {"session_roundtrip": 1}, main=False,
                 front="smooth", seven=True)
@@ -2383,9 +2433,9 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     log(f"    the sessions vs the CPU's generic scan: encode rel {e_fx:.3e}, complex roundtrip rel {e_yx:.3e} (tol "
         f"1e-04); SNR after the delay {snr_x:.2f} dB (must be >= 100)")
     require(e_fx <= 1e-4 and e_yx <= 1e-4 and snr_x >= 100.0, "1344/336: the sessions differ from the generic scan")
-    y_sx = route("1344/336 complex decode: scan_invert (the product route)",
+    y_sx = route("1344/336 complex decode: scan_invert (the smooth route, radix 7)",
                  lambda: streaming.scan_invert(chain_x, f_x, chunk_x // hop_x), {"session_complex_decode": 1},
-                 main=False, front="product")
+                 main=False, front="smooth", seven=True)
     e_sx = rel_err(y_sx.cpu(), streaming.scan_invert(c_px, f_x.cpu(), chunk_x // hop_x))
     log(f"    the session vs the CPU's generic scan: rel {e_sx:.3e} (tol 1e-04)")
     require(torch.isfinite(y_sx).all().item() and e_sx <= 1e-4,
@@ -2415,32 +2465,65 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     ):
         require(streaming.plan_roundtrip(chain_x, tuple(xs_x.shape), chunk_x, mode, device=dev) == mode,
                 f"1344/336 {mode}: must plan the session")
-        y_kx = route(f"1344/336 {mode} roundtrip (the magnitude encode on the smooth route, radix 7; the "
-                     "decode on the product)",
+        y_kx = route(f"1344/336 {mode} roundtrip (the magnitude encode and the decodes on the smooth route, "
+                     "radix 7" + ("; O's analysis on its product)" if mode == "pghi_gl" else ")"),
                      lambda: streaming.scan_roundtrip(chain_x, xs_x, chunk_x, mode, generator=sgen(156)), expect,
-                     main=False, front={"session_magnitude": "smooth", "session_random_decode": "product",
-                                        "gl_project_synthesis": "product"}, seven=True)
+                     main=False, front="smooth", seven=True)
         y_gx = generic(f"1344/336 {mode} generic", lambda: streaming.scan_roundtrip(
             chain_x, xs_x, chunk_x, mode, generator=sgen(156), backend="generic"))
         s_k, s_g = sc_x(y_kx), sc_x(y_gx)
-        log(f"    vs the generic scan: spectral convergence {s_k:.5f} / {s_g:.5f} (must be <= {1.1 * s_g + 1e-3:.5f})")
-        require(y_kx.shape == y_gx.shape and torch.isfinite(y_kx).all().item() and s_k <= 1.1 * s_g + 1e-3,
-                f"1344/336 {mode}: the session converges worse than the generic scan")
+        e_kx = rel_err(y_kx, y_gx)
+        log(f"    vs the generic scan: rel {e_kx:.3e}" + (" (tol 1e-04)" if mode == "pghi" else "")
+            + f"; spectral convergence {s_k:.5f} / {s_g:.5f} (must be <= {1.1 * s_g + 1e-3:.5f})")
+        require(y_kx.shape == y_gx.shape and torch.isfinite(y_kx).all().item() and s_k <= 1.1 * s_g + 1e-3
+                and (mode == "pghi_gl" or e_kx <= 1e-4), f"1344/336 {mode}: the session differs from the generic scan")
         if mode == "pghi_gl":       # the two-launch polish: O's analysis row counts these
             counts["gl_project_analysis"] += n_chx * iters_x
+    # pghi_gl with 16 projections a chunk is held by spectral convergence, as
+    # every pghi_gl session is: the projections amplify float32 differences
+    # of the analysis (a product here, cuFFT in the generic scan), and its
+    # distance to the generic scan is not a property of the decode (readings
+    # of tools/session_bounds.py: 3.3e-5 to 1.5e-3 over 4 clip sets and 2
+    # seeds, the same sessions with the decodes on the product route 4.5e-5
+    # to 1.5e-3).  With one projection a chunk the decodes and the analysis
+    # run once each and the distance is one of the decode: the same readings
+    # 1.9e-5 to 1.1e-4, the product route's within 2.8e-6 of them; the
+    # decodes' synthesis window perturbed by 1e-4 reads 2.1e-4 to 2.6e-4
+    # (perturbed by 1e-3, the session's spectral convergence stays within
+    # 1e-4 of the scan's: the convergence check does not see such a fault).
+    # Required within tol_gl1, between the two
+    tol_gl1 = 1.5e-4
+    chain_x1 = T.OverlapAdd(n_x, hop_x) + T.RealtimeSTFT(n_fft=n_x, hop_length=hop_x, gl_iterations=1)
+    y_kx = route("1344/336 pghi_gl roundtrip, one projection a chunk (the decodes on the smooth route, radix 7; "
+                 "O's analysis on its product)",
+                 lambda: streaming.scan_roundtrip(chain_x1, xs_x, chunk_x, "pghi_gl", generator=sgen(156)),
+                 {"session_magnitude": 1, "rt_pghi_seeded": n_chx, "gl_project_synthesis": n_chx,
+                  "gl_project_analysis": n_chx, "session_random_decode": 1}, main=False, front="smooth", seven=True)
+    y_gx = generic("1344/336 pghi_gl generic, one projection a chunk", lambda: streaming.scan_roundtrip(
+        chain_x1, xs_x, chunk_x, "pghi_gl", generator=sgen(156), backend="generic"))
+    s_k, s_g = sc_x(y_kx), sc_x(y_gx)
+    e_kx = rel_err(y_kx, y_gx)
+    log(f"    vs the generic scan: rel {e_kx:.3e} (tol {tol_gl1:g}); spectral convergence {s_k:.5f} / "
+        f"{s_g:.5f} (must be <= {1.1 * s_g + 1e-3:.5f})")
+    require(y_kx.shape == y_gx.shape and torch.isfinite(y_kx).all().item() and s_k <= 1.1 * s_g + 1e-3
+            and e_kx <= tol_gl1, "1344/336 pghi_gl, one projection a chunk: the session differs from the "
+            "generic scan")
+    counts["gl_project_analysis"] += n_chx
     del y_x, f_x, y_mx, y_kx, y_gx, y_sx
 
-    # R, L, M and the magnitude encode on the product route: the sessions at
-    # 1408/352 (2^7 11: no route but the products), the encode and the
-    # complex roundtrip against the CPU's generic scan (1e-4, SNR >= 100 dB),
-    # the random roundtrip against the card's (1e-4, same seed), the pghi
-    # roundtrip by spectral convergence
+    # R, L, M, the magnitude encode and the decodes (P, S, O's two-launch
+    # synthesis) on the product route: the sessions at 1408/352 (2^7 11: no
+    # route but the products), the encode, the complex roundtrip and the
+    # complex decode against the CPU's generic scan (1e-4, SNR >= 100 dB),
+    # the random roundtrip against the card's (1e-4, same seed), the pghi and
+    # pghi_gl roundtrips by spectral convergence
     n_y, hop_y, chunk_y = 1408, 352, 2816
     xs_y = mono[:4, :8 * chunk_y].contiguous()
     chain_y = T.OverlapAdd(n_y, hop_y) + T.RealtimeSTFT(n_fft=n_y, hop_length=hop_y)
     c_py = T.OverlapAdd(n_y, hop_y, device="cpu") + T.RealtimeSTFT(n_fft=n_y, hop_length=hop_y, device="cpu")
     require(ssx.session_route(n_y, "encode") == ssx.session_route(n_y, "roundtrip", hop_y)
-            == ssx.session_route(n_y, "decode") == "product", "1408/352 must take the product route")
+            == ssx.session_route(n_y, "decode") == ssx.session_route(n_y, "polish") == "product",
+            "1408/352 must take the product route")
     y_y = route("1408/352 complex roundtrip (the product route)",
                 lambda: streaming.scan_roundtrip(chain_y, xs_y, chunk_y), {"session_roundtrip": 1}, main=False,
                 front="product")
@@ -2453,6 +2536,13 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     log(f"    the sessions vs the CPU's generic scan: encode rel {e_fy:.3e}, complex roundtrip rel {e_yy:.3e} (tol "
         f"1e-04); SNR after the delay {snr_y:.2f} dB (must be >= 100)")
     require(e_fy <= 1e-4 and e_yy <= 1e-4 and snr_y >= 100.0, "1408/352: the sessions differ from the generic scan")
+    y_sy = route("1408/352 complex decode: scan_invert (the product route)",
+                 lambda: streaming.scan_invert(chain_y, f_y, chunk_y // hop_y), {"session_complex_decode": 1},
+                 main=False, front="product")
+    e_sy = rel_err(y_sy.cpu(), streaming.scan_invert(c_py, f_y.cpu(), chunk_y // hop_y))
+    log(f"    the session vs the CPU's generic scan: rel {e_sy:.3e} (tol 1e-04)")
+    require(torch.isfinite(y_sy).all().item() and e_sy <= 1e-4,
+            "1408/352 complex decode: the session differs from the generic scan")
     y_my = route("1408/352 random roundtrip (the product route)",
                  lambda: streaming.scan_roundtrip(chain_y, xs_y, chunk_y, "random", generator=sgen(159)),
                  {"session_random_roundtrip": 1}, main=False, front="product")
@@ -2470,17 +2560,27 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
         ref, m = spec(xs_y[..., : n - d]), spec(y[..., d:n])
         k = min(m.shape[-1], ref.shape[-1]) - 2
         return (torch.linalg.norm(m[..., 2:k] - ref[..., 2:k]) / torch.linalg.norm(ref[..., 2:k])).item()
-    y_ky = route("1408/352 pghi roundtrip (the product route)",
-                 lambda: streaming.scan_roundtrip(chain_y, xs_y, chunk_y, "pghi", generator=sgen(160)),
-                 {"session_magnitude": 1, "rt_pghi_phases": 1, "session_random_decode": 1}, main=False,
-                 front="product")
-    y_gy = generic("1408/352 pghi generic", lambda: streaming.scan_roundtrip(
-        chain_y, xs_y, chunk_y, "pghi", generator=sgen(160), backend="generic"))
-    s_k, s_g = sc_y(y_ky), sc_y(y_gy)
-    log(f"    vs the generic scan: spectral convergence {s_k:.5f} / {s_g:.5f} (must be <= {1.1 * s_g + 1e-3:.5f})")
-    require(y_ky.shape == y_gy.shape and torch.isfinite(y_ky).all().item() and s_k <= 1.1 * s_g + 1e-3,
-            "1408/352 pghi: the session converges worse than the generic scan")
-    del y_y, f_y, y_my, y_ky, y_gy
+    n_chy, iters_y = xs_y.shape[-1] // chunk_y, chain_y[1].gl_iterations
+    for mode, expect in (
+        ("pghi", {"session_magnitude": 1, "rt_pghi_phases": 1, "session_random_decode": 1}),
+        ("pghi_gl", {"session_magnitude": 1, "rt_pghi_seeded": n_chy, "gl_project_synthesis": n_chy * iters_y,
+                     "gl_project_analysis": n_chy * iters_y, "session_random_decode": 1}),
+    ):
+        require(streaming.plan_roundtrip(chain_y, tuple(xs_y.shape), chunk_y, mode, device=dev) == mode,
+                f"1408/352 {mode}: must plan the session")
+        y_ky = route(f"1408/352 {mode} roundtrip (the product route)",
+                     lambda: streaming.scan_roundtrip(chain_y, xs_y, chunk_y, mode, generator=sgen(160)), expect,
+                     main=False, front="product")
+        y_gy = generic(f"1408/352 {mode} generic", lambda: streaming.scan_roundtrip(
+            chain_y, xs_y, chunk_y, mode, generator=sgen(160), backend="generic"))
+        s_k, s_g = sc_y(y_ky), sc_y(y_gy)
+        log(f"    vs the generic scan: rel {rel_err(y_ky, y_gy):.3e}; spectral convergence {s_k:.5f} / {s_g:.5f} "
+            f"(must be <= {1.1 * s_g + 1e-3:.5f})")
+        require(y_ky.shape == y_gy.shape and torch.isfinite(y_ky).all().item() and s_k <= 1.1 * s_g + 1e-3,
+                f"1408/352 {mode}: the session converges worse than the generic scan")
+        if mode == "pghi_gl":       # the two-launch polish: O's analysis row counts these
+            counts["gl_project_analysis"] += n_chy * iters_y
+    del y_y, f_y, y_sy, y_my, y_ky, y_gy
 
     # C and D through the Griffin-Lim invert of an STFT(n_fft, hop, hann) on 16
     # clips (7 D + 2 C), converging like the eager loop from the same seed:
@@ -3975,12 +4075,14 @@ def main() -> int:
                 require(lib.att_session_decode_fft_smem_bytes(rows_d, hop_s, n_fft_s, tm)
                         == ss._decode_fft_smem_bytes(rows_d, hop_s, n_fft_s, tm) <= ff.MAX_SMEM,
                         f"{n_fft_s}/{hop_s}: the decode's smooth shared-memory size: wrapper and source disagree")
-    # R / the magnitude encode and L / M on the smooth route's radix-7
-    # instances: every even 7-smooth n_fft with a factor 7 from 64 to 4096 at
-    # every overlap the gates take (hop a multiple of 4), the layouts at the
-    # plans' team counts and one team, the roundtrip on the product route
-    # where its smooth block does not fit (4032 at overlap 4, 6, 7, 8); the
-    # four instances' registers (at most 128: two blocks an SM) and spill
+    # R / the magnitude encode, L / M and the decodes (P, S, O's synthesis)
+    # on the smooth route's radix-7 instances: every even 7-smooth n_fft with
+    # a factor 7 from 64 to 4096 at every overlap the gates take (hop a
+    # multiple of 4), the layouts at the plans' team counts and one team
+    # (the decode's plan and O's narrow blocks), the roundtrip on the
+    # product route where its smooth block does not fit (4032 at overlap 4,
+    # 6, 7, 8); the six instances' registers (at most 128: two blocks an SM;
+    # the decode's plan counts ss.DECODE_SEVEN_BLOCKS) and spill
     n_seven = n_seven_product = 0
     for n_fft_s in [n for n in range(64, 4097, 2) if ff.fft_covers_smooth7(n) and not ff.fft_covers_smooth(n)]:
         for ov_s in range(2, 9):
@@ -3989,10 +4091,18 @@ def main() -> int:
             hop_s = n_fft_s // ov_s
             (rows_e, teams_e), (rows_r, teams_r) = ss._encode_plan(n_fft_s, hop_s), ss._roundtrip_plan(n_fft_s, hop_s)
             route_r = ss.session_route(n_fft_s, "roundtrip", hop_s)
+            plans_d = [ss._decode_plan(n_fft_s, hop_s, narrow) for narrow in (None, ss.PROJECT_SYN_ROWS)]
             require(teams_e > 0 and ss.session_route(n_fft_s, "encode") == "smooth"
-                    and (teams_r > 0) == (route_r == "smooth") and ss.session_route(n_fft_s, "decode") == "product",
-                    f"{n_fft_s}/{hop_s}: the encode and the roundtrip must take the smooth route, the decode the "
-                    "product")
+                    and (teams_r > 0) == (route_r == "smooth") and ss.session_route(n_fft_s, "decode") == "smooth"
+                    and all(tm > 0 for _, tm in plans_d),
+                    f"{n_fft_s}/{hop_s}: the encode, the roundtrip (where it fits) and the decode must take the "
+                    "smooth route")
+            for rows_d, teams_d in plans_d:
+                for tm in sorted({1, teams_d}):
+                    require(lib.att_session_decode_fft_smem_bytes(rows_d, hop_s, n_fft_s, tm)
+                            == ss._decode_fft_smem_bytes(rows_d, hop_s, n_fft_s, tm) <= ff.MAX_SMEM,
+                            f"{n_fft_s}/{hop_s}: the decode's radix-7 shared-memory size: wrapper and source "
+                            "disagree")
             n_seven_product += route_r == "product"
             for tm in sorted({1, teams_e}):
                 require(lib.att_session_encode_fft_smem_bytes(rows_e, hop_s, n_fft_s, tm)
@@ -4011,12 +4121,21 @@ def main() -> int:
     for name, res in seven_res.items():
         log(f"    {name} radix-7 instance: {res['registers']} registers, spill stores / loads "
             f"{res.get('spill_stores', 0)} / {res.get('spill_loads', 0)} B")
-    require(set(seven_res) == {"R", "N", "L", "M"} and all(r["registers"] <= 128 for r in seven_res.values()),
-            f"the radix-7 instances: R, N's encode, L and M, at most 128 registers (found {sorted(seven_res)})")
+    require(set(seven_res) == {"R", "N", "L", "M", "P", "S"}
+            and all(r["registers"] <= 128 for r in seven_res.values()),
+            f"the radix-7 instances: R, N's encode, L, M, P and S, at most 128 registers (found {sorted(seven_res)})")
+    d_regs = max(seven_res["P"]["registers"], seven_res["S"]["registers"])
+    d_blocks = 65536 // (256 * 8 * -(-d_regs // 8))
+    log(f"    the decode's radix-7 instances: {d_regs} registers, {d_blocks} blocks an SM by registers (the plan "
+        f"counts {ss.DECODE_SEVEN_BLOCKS})")
+    require(d_blocks == ss.DECODE_SEVEN_BLOCKS, "the decode's radix-7 plan counts another number of blocks an SM "
+            "than the instance's registers allow")
     log(f"    the radix-7 instances: plans and shared-memory sizes agree at {n_seven} shapes, {n_seven_product} "
-        f"roundtrips on the product route (encode / roundtrip at 1344/336 {ss._encode_plan(1344, 336)} / "
-        f"{ss._roundtrip_plan(1344, 336)}, 896/224 {ss._encode_plan(896, 224)} / {ss._roundtrip_plan(896, 224)} as "
-        "(rows, FFTs))")
+        f"roundtrips on the product route (encode / roundtrip / decode / O's narrow synthesis at 1344/336 "
+        f"{ss._encode_plan(1344, 336)} / {ss._roundtrip_plan(1344, 336)} / {ss._decode_plan(1344, 336)} / "
+        f"{ss._decode_plan(1344, 336, ss.PROJECT_SYN_ROWS)}, 896/224 {ss._encode_plan(896, 224)} / "
+        f"{ss._roundtrip_plan(896, 224)} / {ss._decode_plan(896, 224)} / "
+        f"{ss._decode_plan(896, 224, ss.PROJECT_SYN_ROWS)} as (rows, FFTs))")
     require(n_seven == 199 and n_seven_product == 4, "the radix-7 route: 199 shapes, 4 roundtrips on the product")
     # E / F (and A / B) on the smooth route: every shape the route takes
     # (hop a multiple of 32, overlap 2 to 8), the plan's layout and the
@@ -6373,16 +6492,16 @@ def main() -> int:
     # the angles read and, per bin, |X|, a sincos and two products (26
     # operations); P reads magnitudes and angles, writes the audio, one
     # inverse FFT, the window, the overlap-add and 22 operations per bin.
-    # The product route of P and S (1344/336 = 2^6 3 7, 528 frames) and of
-    # R, L and M (1408/352 = 2^7 11, 504 frames) runs the full-length
-    # products: the analysis of every frame a block holds (n_fft rounded to
+    # The product route of R, L, M, P and S (1408/352 = 2^7 11, 504 frames)
+    # runs the full-length products: the analysis of every frame a block holds (n_fft rounded to
     # 32 x 128-bin column tiles, cos and sin) and the synthesis of 8 ceil(R /
     # 8) chunks x overlap x Kp x hop per block; R's FFT route does
     # fft_design_flops, its smooth route (1200/300, 592 frames; the radix-7
-    # instance at 1344/336) smooth_design_flops, its product route the
-    # analysis product; the FFT and smooth routes of L and M a forward and an inverse
-    # FFT of rows + 2 overlap frames a block of rows chunks, those of P and S
-    # an inverse FFT of as many (the pack's operations as the split's).  The yardsticks (timed, used
+    # instances at 1344/336, 528 frames) smooth_design_flops, its product
+    # route the analysis product; the FFT and smooth routes of L and M a
+    # forward and an inverse FFT of rows + 2 overlap frames a block of rows
+    # chunks, those of P and S an inverse FFT of as many (the pack's
+    # operations as the split's).  The yardsticks (timed, used
     # nowhere): torch.stft(center=False) on the padded rows; torch.fft.irfft
     # x the synthesis window + fold.
     ss = stream["ss"]
@@ -6431,11 +6550,10 @@ def main() -> int:
     q_need = 2 * q_fft + 3.0 * n_fft_q * q_fr
     q_out = 4.0 * SB * T_q * hop_q
 
-    # R, L, M and the magnitude encode on the smooth route's radix-7
-    # instances at 1344/336 (2^6 3 7; the decodes P and S on their product
-    # route there): the same functions, a forward and an inverse mixed-radix
-    # FFT (radices 7 3 4 4 4) of rows + 2 overlap frames a block of rows
-    # chunks, overlap 4 and gain 4
+    # R, L, M, the magnitude encode and the decodes P and S on the smooth
+    # route's radix-7 instances at 1344/336 (2^6 3 7): the same functions, a
+    # forward and an inverse mixed-radix FFT (radices 7 3 4 4 4) of rows + 2
+    # overlap frames a block of rows chunks, overlap 4 and gain 4
     n_fft_x, hop_x = 1344, 336
     F_x, T_x, ov_x = n_fft_x // 2 + 1, -(-STREAM_LEN // 2688) * 8, n_fft_x // hop_x
     w_x = torch.hann_window(n_fft_x, device=dev)
@@ -6453,9 +6571,9 @@ def main() -> int:
     x_need = 2 * x_fft + 3.0 * n_fft_x * x_fr
     x_out = 4.0 * SB * T_x * hop_x
 
-    # R, L, M and the magnitude encode on the product route at 1408/352
-    # (2^7 11): the window-folded products (rows + overlap - 1 frames'
-    # analysis, the synthesis product), overlap 4 and gain 4
+    # R, L, M, the magnitude encode and the decodes on the product route at
+    # 1408/352 (2^7 11): the window-folded products (rows + overlap - 1
+    # frames' analysis, the synthesis product), overlap 4 and gain 4
     n_fft_z, hop_z = 1408, 352
     F_z, T_z, ov_z = n_fft_z // 2 + 1, -(-STREAM_LEN // 2816) * 8, n_fft_z // hop_z
     w_z = torch.hann_window(n_fft_z, device=dev)
@@ -6475,8 +6593,10 @@ def main() -> int:
     z_need = 2 * z_fft + 3.0 * n_fft_z * z_fr
     z_out = 4.0 * SB * T_z * hop_z
     require(ss.session_route(n_fft_q, "decode") == "smooth" and ss.session_route(n_fft_x, "encode") == "smooth"
-            and ss.session_route(n_fft_x, "roundtrip", hop_x) == "smooth" and ss.session_route(n_fft_x, "decode") == "product"
-            and ss.session_route(n_fft_z, "encode") == ss.session_route(n_fft_z, "roundtrip", hop_z) == "product"
+            and ss.session_route(n_fft_x, "roundtrip", hop_x) == "smooth"
+            and ss.session_route(n_fft_x, "decode") == "smooth"
+            and ss.session_route(n_fft_z, "encode") == ss.session_route(n_fft_z, "roundtrip", hop_z)
+            == ss.session_route(n_fft_z, "decode") == "product"
             and x_ops[0].shape == (n_fft_x,) and z_ops[0].shape[0] == ss._k_analysis(n_fft_z),
             "phase 5: the smooth, radix-7 and product shapes' routes")
 
@@ -6514,9 +6634,10 @@ def main() -> int:
 
     # P and S on the FFT route: per block of r_dec chunks, frames_irfft of
     # r_dec + 2 overlap frames (fft_design_flops); on the smooth route at
-    # 1200/300 the mixed-radix frames_irfft of as many (smooth_design_flops);
-    # their product route at 1344/336: the synthesis product of 8 ceil(R / 8)
-    # chunks x overlap x Kp x hop per block of R chunks
+    # 1200/300 and its radix-7 instance at 1344/336 the mixed-radix
+    # frames_irfft of as many (smooth_design_flops); their product route at
+    # 1408/352: the synthesis product of 8 ceil(R / 8) chunks x overlap x Kp
+    # x hop per block of R chunks
     dec_design = fft_design_flops(N_FFT, SB * t_dec * (r_dec + 2 * ov))
     q_dec_ops = ss._decode_operands(q_rt.inv_window, float(ov_q), n_fft_q, hop_q)
     q_spec = lib_encode_q().transpose(1, 2).contiguous()
@@ -6529,8 +6650,15 @@ def main() -> int:
     x_mags = x_spec.abs().contiguous()
     x_spec_ri = torch.view_as_real(x_spec).contiguous()
     r_dx = ss._decode_plan(n_fft_x, hop_x)[0]
-    x_dec_design = 2.0 * SB * -(-T_x // r_dx) * 8 * -(-r_dx // 8) * ov_x * ss._k_padded(F_x) * hop_x
-    require(q_dec_ops[0] is None and x_dec_ops[1] is None, "phase 5: the decodes' smooth and product operands")
+    x_dec_design = smooth_design_flops(n_fft_x, SB * -(-T_x // r_dx) * (r_dx + 2 * ov_x))
+    z_dec_ops = ss._decode_operands(z_rt.inv_window, float(ov_z), n_fft_z, hop_z)
+    z_spec = lib_encode_z().transpose(1, 2).contiguous()
+    z_mags = z_spec.abs().contiguous()
+    z_spec_ri = torch.view_as_real(z_spec).contiguous()
+    r_dz = ss._decode_plan(n_fft_z, hop_z)[0]
+    z_dec_design = 2.0 * SB * -(-T_z // r_dz) * 8 * -(-r_dz // 8) * ov_z * ss._k_padded(F_z) * hop_z
+    require(q_dec_ops[0] is None and x_dec_ops[0] is None and z_dec_ops[1] is None,
+            "phase 5: the decodes' smooth, radix-7 and product operands")
 
     stream_src = "acids_transforms_tpu_torch/csrc/stream_step.cu"
     stream_tpu = "acids_transforms_tpu/ops/pallas/stream_step.py"
@@ -6634,13 +6762,20 @@ def main() -> int:
              library=lambda: lib_synth_q(torch.polar(q_mags, q_ang)),
              bound=bound_of(8.0 * q_fr * F_q + q_out, q_fft + 2.0 * n_fft_q * q_fr + 22.0 * q_fr * F_q),
              ceiling=ceiling_of(q_dec_design + 22.0 * q_fr * F_q)),
-        dict(key="P_product", name="session_random_decode_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
-             front_end="product", replaces=stream_tpu + ":1328", launches=counts["session_random_decode:product"],
+        dict(key="P_smooth7", name="session_random_decode_smooth7", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="smooth", replaces=stream_tpu + ":1328", launches=counts["session_random_decode:smooth7"],
              run=lambda: ss._launch_decode(x_mags, x_ang, x_dec_ops, n_fft_x, hop_x),
              plain=lambda: ss.session_decode_reference(x_mags, x_ang, x_rt.inv_window, float(ov_x), n_fft_x, hop_x),
              library=lambda: lib_synth_x(torch.polar(x_mags, x_ang)),
              bound=bound_of(8.0 * x_fr * F_x + x_out, x_fft + 2.0 * n_fft_x * x_fr + 22.0 * x_fr * F_x),
-             ceiling=ceiling_of(x_dec_design + 22.0 * x_fr * F_x)),
+             ceiling=ceiling_of(x_dec_design + 22.0 * x_fr * F_x), resources=seven_res["P"]),
+        dict(key="P_product", name="session_random_decode_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
+             front_end="product", replaces=stream_tpu + ":1328", launches=counts["session_random_decode:product"],
+             run=lambda: ss._launch_decode(z_mags, z_ang, z_dec_ops, n_fft_z, hop_z),
+             plain=lambda: ss.session_decode_reference(z_mags, z_ang, z_rt.inv_window, float(ov_z), n_fft_z, hop_z),
+             library=lambda: lib_synth_z(torch.polar(z_mags, z_ang)),
+             bound=bound_of(8.0 * z_fr * F_z + z_out, z_fft + 2.0 * n_fft_z * z_fr + 22.0 * z_fr * F_z),
+             ceiling=ceiling_of(z_dec_design + 22.0 * z_fr * F_z)),
     ]
     # ---- the RT-PGHI sessions and the complex decode (phase 4g's shape).
     # The magnitude encode: R's analysis, |X| written instead of (re, im), the
@@ -6709,13 +6844,20 @@ def main() -> int:
              library=lambda: lib_synth_q(q_spec),
              bound=bound_of(8.0 * q_fr * F_q + q_out, q_fft + 2.0 * n_fft_q * q_fr),
              ceiling=ceiling_of(q_dec_design)),
-        dict(key="S_product", name="session_complex_decode_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
-             front_end="product", replaces=stream_tpu + ":1803", launches=counts["session_complex_decode:product"],
+        dict(key="S_smooth7", name="session_complex_decode_smooth7", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="smooth", replaces=stream_tpu + ":1803", launches=counts["session_complex_decode:smooth7"],
              run=lambda: ss._launch_decode(x_spec_ri, None, x_dec_ops, n_fft_x, hop_x),
              plain=lambda: ss.session_complex_decode_reference(x_spec, x_rt.inv_window, float(ov_x), n_fft_x, hop_x),
              library=lambda: lib_synth_x(x_spec),
              bound=bound_of(8.0 * x_fr * F_x + x_out, x_fft + 2.0 * n_fft_x * x_fr),
-             ceiling=ceiling_of(x_dec_design)),
+             ceiling=ceiling_of(x_dec_design), resources=seven_res["S"]),
+        dict(key="S_product", name="session_complex_decode_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
+             front_end="product", replaces=stream_tpu + ":1803", launches=counts["session_complex_decode:product"],
+             run=lambda: ss._launch_decode(z_spec_ri, None, z_dec_ops, n_fft_z, hop_z),
+             plain=lambda: ss.session_complex_decode_reference(z_spec, z_rt.inv_window, float(ov_z), n_fft_z, hop_z),
+             library=lambda: lib_synth_z(z_spec),
+             bound=bound_of(8.0 * z_fr * F_z + z_out, z_fft + 2.0 * n_fft_z * z_fr),
+             ceiling=ceiling_of(z_dec_design)),
     ]
     # ---- O (phase 4g's pghi_gl shape: one chunk's grid of gl_context 3 +
     # 16 frames, 64 sessions; the port pads it with 3 zero frames, which the
@@ -6723,7 +6865,8 @@ def main() -> int:
     # one launch.  The two-launch projection runs where the polish does not
     # take the grid, and its rows are timed there (4096/1024 with
     # gl_context 1 for the synthesis's FFT route, 1200/300 for its smooth
-    # route and the analysis, 1344/336 for its product route).  The
+    # route, 1344/336 for its radix-7 instance and the analysis, 1408/352 for
+    # its product route).  The
     # projection's synthesis is P's kernel in
     # blocks of 8 chunks; what the function needs of it: the grid's
     # magnitudes and phases read, the overlap-add signal from the first
@@ -6758,7 +6901,8 @@ def main() -> int:
     g_el = float(SB * g_upd * F)
     # O's synthesis on the smooth route: a grid of 3 pinned + 8 + 3 zero
     # frames at 1200/300 (phase 4h's sessions), random magnitudes and phases;
-    # on the product route the same grid at 1344/336
+    # on the radix-7 instance the same grid at 1344/336, on the product route
+    # at 1408/352
     gq_tp = g_ctx + 8 + ov_q - 1
     gq_g = torch.Generator(device=dev).manual_seed(args.seed + 56)
     gm_q = torch.rand((SB, gq_tp, F_q), generator=gq_g, device=dev)
@@ -6787,6 +6931,21 @@ def main() -> int:
                                      stride=(1, hop_x))
         return y.reshape(SB, -1)[:, : gx_tp * hop_x]
 
+    gx_rows_syn = ss._decode_plan(n_fft_x, hop_x, ss.PROJECT_SYN_ROWS)[0]
+    gz_tp = g_ctx + 8 + ov_z - 1
+    gz_g = torch.Generator(device=dev).manual_seed(args.seed + 58)
+    gm_z = torch.rand((SB, gz_tp, F_z), generator=gz_g, device=dev)
+    gm_z[:, -(ov_z - 1):] = 0.0
+    gp_z = 2 * math.pi * torch.rand((SB, gz_tp, F_z), generator=gz_g, device=dev)
+    gz_ops = ss._decode_operands(z_rt.inv_window, float(ov_z), n_fft_z, hop_z)
+    gz_fr = float(SB * (gz_tp - (ov_z - 1)))
+
+    def lib_proj_synth_z():
+        fr = torch.fft.irfft(torch.polar(gm_z, gp_z), n=n_fft_z) * (z_rt.inv_window / ov_z)
+        y = torch.nn.functional.fold(fr.transpose(1, 2), (1, (gz_tp - 1) * hop_z + n_fft_z), (1, n_fft_z),
+                                     stride=(1, hop_z))
+        return y.reshape(SB, -1)[:, : gz_tp * hop_z]
+
     # O's projection synthesis on the FFT route where it now runs: the
     # two-launch projection of a grid that the polish does not take, phase
     # 4g's 4096/1024 sessions with gl_context 1 (1 pinned + 40 + 3 zero
@@ -6811,17 +6970,21 @@ def main() -> int:
 
     # O's projection analysis where its route now runs: the two-launch
     # projection of a grid that the polish does not take, here 1344/336's
-    # (2^6 3 7: no FFT and no smooth route); the analysis against its plain
-    # version on the synthesis's signal, the pinned and frozen rows untouched.
-    # A random grid's re-framed spectrum has bins far below the grid's
-    # magnitude, whose angle float32 rounds to 1e-3 rad and worse (the plain
-    # version's own distance to the float64 analysis on such a grid, measured
-    # on the CPU at 1200/300 and 1344/336: 2.5e-5 to 1.1e-3 of |X| (cos, sin)
-    # by seed), so, as check_pghi holds K's recurrence, the kernel must agree
-    # with the plain version within 1e-4 or, where float32 itself is further
-    # off, within the plain version's measured distance to the float64
-    # analysis, and be no further from the float64 analysis than 1.5 times
-    # the plain version plus 1e-4
+    # (2^6 3 7: the polish keeps 5-smooth; the synthesis before it runs the
+    # decode's radix-7 instance); the analysis against its plain version and
+    # the float64 analysis on the synthesis's signal, the pinned and frozen
+    # rows untouched.  A phase is read as |Y| (cos, sin)(phase) over the
+    # session's largest |Y|, Y the float64 re-framed spectrum: a bin's angle
+    # is only as good as its magnitude, and a random grid's re-framed
+    # spectrum has near-silent bins whose angle float32 rounds to 1e-3 rad
+    # and worse (read against the grid's magnitude instead, the plain
+    # version's own distance to the float64 analysis moved 4.5x with the
+    # float32 rounding of its input).  Readings of tools/session_bounds.py
+    # (8 grids of 64 sessions): kernel vs plain 4.2e-7 to 5.4e-7, kernel vs
+    # float64 3.0e-7 to 3.5e-7, plain vs float64 4.2e-7 to 5.5e-7; the basis
+    # perturbed by 1e-5 reads 6.1e-6 to 6.9e-6.  Both of the kernel's
+    # distances required within tol_a, between the two
+    tol_a = 2e-6
     gx_tx = gx_tp - (ov_x - 1)
     gx_lo, gx_hi = x_rt.gl_frozen(8)
     gx_wc, gx_ws = ss._ana_basis(x_rt.window, n_fft_x, ss._k_analysis(n_fft_x))
@@ -6838,25 +7001,24 @@ def main() -> int:
 
     ss._launch_project_analysis(gx_y, gx_scratch, gx_wc, gx_ws, n_fft_x, hop_x, gx_tx, g_ctx, gx_lo, gx_hi)
     a_p = plain_proj_analysis_x()
-    fr64 = gx_y.double().unfold(-1, n_fft_x, hop_x)[:, g_ctx:gx_tx]
-    a_64 = torch.atan2(torch.matmul(fr64, gx_ws[:n_fft_x].double()), torch.matmul(fr64, gx_wc[:n_fft_x].double()))
     upd_x = torch.ones(gx_tx - g_ctx, dtype=torch.bool, device=dev)
     upd_x[gx_lo - g_ctx: gx_hi - g_ctx] = False
-    gm_u = gm_x[:, g_ctx:gx_tx][:, upd_x]
+    fr64 = gx_y.double().unfold(-1, n_fft_x, hop_x)[:, g_ctx:gx_tx]
+    re64, im64 = torch.matmul(fr64, gx_wc[:n_fft_x].double()), torch.matmul(fr64, gx_ws[:n_fft_x].double())
+    a_64, y_u = torch.atan2(im64, re64), torch.hypot(re64, im64)[:, upd_x]
 
     def angle_off(a, b):
-        return (unit_spec(gm_u, a[:, upd_x]) - unit_spec(gm_u, b[:, upd_x])).abs().max().item()
+        return (unit_spec(y_u, a[:, upd_x]) - unit_spec(y_u, b[:, upd_x])).abs().max().item()
     e_oa = angle_off(gx_scratch[:, g_ctx:gx_tx], a_p)
     e_p64, e_k64 = angle_off(a_p, a_64), angle_off(gx_scratch[:, g_ctx:gx_tx], a_64)
-    tol_oa = max(1e-4, e_p64)
     kept_x = torch.equal(gx_scratch[:, :g_ctx], gp_x[:, :g_ctx]) and torch.equal(
         gx_scratch[:, gx_lo:gx_hi], gp_x[:, gx_lo:gx_hi])
-    log(f"  O's projection analysis at 1344/336 ({gx_tx - g_ctx} polished frames, {SB} sessions) against its plain "
-        f"version: |X| (cos, sin) off by {e_oa:.3e} (tol {tol_oa:.3g}); vs the float64 analysis: plain {e_p64:.3e}, "
-        f"kernel {e_k64:.3e} (tol {1.5 * e_p64 + 1e-4:.3g}); pinned and frozen rows kept: {kept_x}")
-    require(e_oa <= tol_oa and e_k64 <= 1.5 * e_p64 + 1e-4 and kept_x,
+    log(f"  O's projection analysis at 1344/336 ({gx_tx - g_ctx} polished frames, {SB} sessions) on the radix-7 "
+        f"synthesis's signal, |Y| (cos, sin): against its plain version {e_oa:.3e}, against the float64 analysis "
+        f"{e_k64:.3e} (tol {tol_a:g} each; the plain version's {e_p64:.3e}); pinned and frozen rows kept: {kept_x}")
+    require(e_oa <= tol_a and e_k64 <= tol_a and kept_x,
             "O's projection analysis at 1344/336 disagrees with its plain version")
-    del fr64, a_64
+    del fr64, re64, im64, a_64
     errs["Oana"] = max(errs.get("Oana", 0.0), e_oa)
     gx_el = float(SB * (gx_tx - g_ctx - (gx_hi - gx_lo)) * F_x)
     gx_upd = gx_tx - g_ctx - (gx_hi - gx_lo)
@@ -6943,8 +7105,8 @@ def main() -> int:
                             2.5 * n_fft_q * math.log2(n_fft_q) * gq_fr + n_fft_q * gq_fr + 22.0 * gq_fr * F_q),
              ceiling=ceiling_of(smooth_design_flops(n_fft_q, SB * -(-gq_tp // gq_rows_syn) * (gq_rows_syn + 2 * ov_q))
                                 + 22.0 * gq_fr * F_q)),
-        dict(key="Osyn_product", name="gl_project_synthesis_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
-             front_end="product", replaces=stream_tpu + ":940", launches=counts["gl_project_synthesis:product"],
+        dict(key="Osyn_smooth7", name="gl_project_synthesis_smooth7", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="smooth", replaces=stream_tpu + ":940", launches=counts["gl_project_synthesis:smooth7"],
              run=lambda: ss._launch_decode(gm_x, gp_x, gx_ops, n_fft_x, hop_x, rows=ss.PROJECT_SYN_ROWS,
                                            name="gl_project_synthesis"),
              plain=lambda: ss._synthesis_reference(gm_x * torch.cos(gp_x), gm_x * torch.sin(gp_x), x_rt.inv_window,
@@ -6952,7 +7114,18 @@ def main() -> int:
              library=lib_proj_synth_x,
              bound=bound_of(8.0 * gx_fr * F_x + 4.0 * SB * (gx_tp - g_ctx) * hop_x,
                             2.5 * n_fft_x * math.log2(n_fft_x) * gx_fr + n_fft_x * gx_fr + 22.0 * gx_fr * F_x),
-             ceiling=ceiling_of(2.0 * SB * -(-gx_tp // 8) * 8 * ov_x * ss._k_padded(F_x) * hop_x + 22.0 * gx_fr * F_x)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_x, SB * -(-gx_tp // gx_rows_syn) * (gx_rows_syn + 2 * ov_x))
+                                + 22.0 * gx_fr * F_x), resources=seven_res["P"]),
+        dict(key="Osyn_product", name="gl_project_synthesis_product", source=stream_src + " (+ csrc/synth_ola.cuh)",
+             front_end="product", replaces=stream_tpu + ":940", launches=counts["gl_project_synthesis:product"],
+             run=lambda: ss._launch_decode(gm_z, gp_z, gz_ops, n_fft_z, hop_z, rows=ss.PROJECT_SYN_ROWS,
+                                           name="gl_project_synthesis"),
+             plain=lambda: ss._synthesis_reference(gm_z * torch.cos(gp_z), gm_z * torch.sin(gp_z), z_rt.inv_window,
+                                                   float(ov_z), n_fft_z, hop_z, gz_tp),
+             library=lib_proj_synth_z,
+             bound=bound_of(8.0 * gz_fr * F_z + 4.0 * SB * (gz_tp - g_ctx) * hop_z,
+                            2.5 * n_fft_z * math.log2(n_fft_z) * gz_fr + n_fft_z * gz_fr + 22.0 * gz_fr * F_z),
+             ceiling=ceiling_of(2.0 * SB * -(-gz_tp // 8) * 8 * ov_z * ss._k_padded(F_z) * hop_z + 22.0 * gz_fr * F_z)),
         dict(key="Opol", name="gl_polish", source=stream_src + " (+ csrc/fft_smem.cuh)", front_end="fft",
              replaces=stream_tpu + ":940", launches=counts["gl_polish:fft"],
              run=lambda: ss.gl_polish(gm, g_pol, g_syn, g_rt.inv_window, g_rt.window, None, None, N_FFT, HOP, g_ctx,
@@ -7088,8 +7261,8 @@ def main() -> int:
         log(f"  smooth plan sweep {shape} (E + F b2b, ms; tile x FFTs, KB, blocks an SM): " + "; ".join(
             f"{p['tile']} x {p['teams']} ({p['smem_kb']:.1f} KB, {p['blocks']}) {p['e_ms']:.3f} + {p['f_ms']:.3f}"
             for p in r["rows"]) + f"; the rule's pick {r['pick']} {100 * r['over']:+.1f}% over the best {r['best']}")
-    # R and L / M on the smooth route's radix-7 instances under every plan
-    # (reported, not gated), and the registers and spill of every
+    # R, L / M and P / S on the smooth route's radix-7 instances under every
+    # plan (reported, not gated), and the registers and spill of every
     # mixed-radix instance of the build
     for shape, r in seven_plan_sweep(sx, args.repeats).items():
         log(f"  radix-7 plan sweep {shape}, {SB} sessions x {r['frames']} frames: R (b2b ms; frames x FFTs, KB, "
@@ -7100,6 +7273,10 @@ def main() -> int:
             f"{p['rows']} x {p['teams']} ({p['smem_kb']:.1f} KB, {p['blocks']}) {p['l_ms']:.3f} / {p['m_ms']:.3f}"
             for p in r["roundtrip"]) + f"; the rule's pick {r['pick_r']} {100 * r['over_r']:+.1f}% over the best "
             f"{r['best_r']}")
+        log(f"  radix-7 plan sweep {shape}: P / S (b2b ms; chunks x FFTs, KB, blocks an SM) " + "; ".join(
+            f"{p['rows']} x {p['teams']} ({p['smem_kb']:.1f} KB, {p['blocks']}) {p['p_ms']:.3f} / {p['s_ms']:.3f}"
+            for p in r["decode"]) + f"; the rule's pick {r['pick_d']} {100 * r['over_d']:+.1f}% over the best "
+            f"{r['best_d']}")
     for name, res in smooth_instance_resources(_build.kernel_resources()).items():
         log(f"  mixed-radix instance {name}: {res.get('registers')} registers, spill stores / loads "
             f"{res.get('spill_stores', 0)} / {res.get('spill_loads', 0)} B")

@@ -1,5 +1,6 @@
 """The mixed-radix (smooth) route's radix-7 stage, which R, N's magnitude
-encode, L and M take at an even ``n_fft`` with a factor 7
+encode, L, M and the decodes (P, S, O's projection synthesis) take at an
+even ``n_fft`` with a factor 7
 (``ops/cuda/frames_fft.py``: ``fft_covers_smooth7``, the sevens of
 ``fft_radices``, the radix-7 butterfly of the ``smooth=True`` schedule) and
 the session wrappers that pick it (``ops/cuda/stream_step.py:session_route``
@@ -17,11 +18,13 @@ with the kernel's kind and hop).
   package's generic chunk scan (it has no session layout at these shapes)
   within 1e-4 of the largest value and against the float64 session oracle
   within 1e-5;
-* the route rule: R and L on the smooth route at every even 7-smooth shape
-  their blocks fit, the decodes, O's polish and the other kernels on their
+* the route rule: R, L and the decodes on the smooth route at every even
+  7-smooth shape their blocks fit, O's polish and the other kernels on their
   product routes there, the four 4032 roundtrip shapes whose smooth block
-  does not fit on the product; every shape the encode and roundtrip gates
-  took before still taken; no route counted on the CPU.
+  does not fit on the product; every shape the encode, roundtrip and decode
+  gates took before still taken; no route counted on the CPU
+  (``tests/test_torch_stream_decode_seven.py`` holds the decodes' plain
+  versions).
 
 On the card ``chip_smoke.py`` holds the kernels' radix-7 instances against
 these plain versions (bit-identical at 1344/336 and 896/224).
@@ -259,15 +262,15 @@ def test_l_and_m_at_other_overlaps_vs_oracle(n, hop):
 
 
 def test_route_rule():
-    """R and L smooth at the 7-smooth shapes; the decodes, the polish and the
+    """R, L and the decodes smooth at the 7-smooth shapes; the polish and the
     other kernels on their product routes there; 4032's four large-overlap
     roundtrips on the product; the plans."""
     for n, hop in SESSION_SHAPES + [(1792, 448), (1680, 420), (1764, 588)]:
         assert PK.session_route(n, "encode") == "smooth" and PK.session_route(n, "roundtrip", hop) == "smooth"
         assert PK._encode_plan(n, hop)[1] > 0 and PK._roundtrip_plan(n, hop)[1] > 0
-        # the decodes, the polish: n_fft alone, 5-smooth
-        assert PK.session_route(n, "polish") == "product" and PK.session_route(n, "decode", hop) == "product"
-        assert PK._decode_plan(n, hop)[1] == 0 and PK._decode_plan(n, hop, PK.PROJECT_SYN_ROWS)[1] == 0
+        # the decodes: n_fft alone, their radix-7 instance; the polish keeps 5-smooth
+        assert PK.session_route(n, "polish") == "product" and PK.session_route(n, "decode", hop) == "smooth"
+        assert PK._decode_plan(n, hop)[1] > 0 and PK._decode_plan(n, hop, PK.PROJECT_SYN_ROWS)[1] > 0
         assert PK._polish_plan(n, hop, 20) is None
     # the other kernels keep fft_covers_smooth: their product / factored routes at 896/224 and 1344/336
     for n, hop in SESSION_SHAPES:
@@ -289,6 +292,7 @@ def test_route_rule():
         PK.session_route(1344, "synthesis")
     # 1408 = 2^7 11 on the products for every kernel
     assert PK.session_route(1408, "encode") == PK.session_route(1408, "roundtrip", 352) == "product"
+    assert PK.session_route(1408, "decode") == "product" and PK._decode_plan(1408, 352)[1] == 0
     # the plans (frames_fft.class_plan_smooth, _encode_plan's rule): on an H100
     # the fastest of a sweep of every plan (chip_smoke.py:seven_plan_sweep)
     # at every one of these shapes but L / M at 1344/336 and 896/224, 4.8 %
@@ -311,7 +315,7 @@ def test_every_shape_taken_before_is_still_taken():
     """At every even 7-smooth n_fft with a seven (hop % 4 == 0, overlap 2 to
     8: 199 shapes) the gates take what the product's took, and each plan
     fits."""
-    n_shapes = n_smooth = 0
+    n_shapes = n_smooth = n_decode = 0
     for n in sevens():
         for ov in range(2, 9):
             if n % ov or (n // ov) % 4:
@@ -333,8 +337,14 @@ def test_every_shape_taken_before_is_still_taken():
                 else:
                     assert (n, hop) in PRODUCT_4032 and (rows, teams) == (PK._pick_rows("roundtrip", n, hop), 0)
             if PK._pick_rows("decode", n, hop) is not None:
-                assert PK.kernel_covers("decode", n, hop) and PK._decode_plan(n, hop)[1] == 0
-    assert n_shapes == 199 and n_smooth == 195
+                assert PK.kernel_covers("decode", n, hop), (n, hop)
+            assert PK.session_route(n, "decode") == "smooth"
+            for narrow in (None, PK.PROJECT_SYN_ROWS):             # P and S's blocks, O's narrow ones
+                rows, teams = PK._decode_plan(n, hop, narrow)
+                assert rows % (2 * ov) == 0 and 1 <= teams <= FF.fft_smooth_max_teams(n)
+                assert PK._decode_fft_smem_bytes(rows, hop, n, teams) <= PK.MAX_SMEM
+            n_decode += PK.kernel_covers("decode", n, hop)
+    assert n_shapes == 199 and n_smooth == 195 and n_decode == 199
 
 
 def test_product_roundtrip_reference_keeps_the_products_where_the_encode_is_smooth():

@@ -203,8 +203,8 @@ def test_l_and_m_vs_jax_scan_and_oracle(n, hop):
 def test_route_rule():
     """R, L, the decodes and O's polish smooth at 1200/300 and 960/240; the
     full-K kernels but E and F keep ``fft_covers`` (E and F take the smooth
-    route too); 1408/352 on the products, and 1344/336's decodes (its R and
-    L take the radix-7 stage)."""
+    route too); 1408/352 on the products (1344/336's R, L and decodes take
+    the radix-7 stage)."""
     for n, hop in SESSION_SHAPES + [(768, 192), (400, 100), (1920, 480)]:
         assert all(PK.session_route(n, k, hop) == "smooth" for k in PK.SESSION_ROUTE_KINDS)
         assert PK._encode_plan(n, hop)[1] > 0 and PK._roundtrip_plan(n, hop)[1] > 0
@@ -217,8 +217,9 @@ def test_route_rule():
     assert PK._roundtrip_plan(960, 240) == (56, 4) and PK._roundtrip_plan(1920, 480) == (24, 2)
     assert PK._roundtrip_plan(768, 192) == (24, 4) and PK._roundtrip_plan(400, 100) == (56, 8)
     assert PK._encode_plan(1920, 480) == (8, 2)
-    assert PK._decode_plan(1344, 336) == (PK._pick_rows("decode", 1344, 336), 0)
-    assert PK.session_route(1344, "decode") == "product"
+    assert PK._decode_plan(1408, 352) == (PK._pick_rows("decode", 1408, 352), 0)
+    assert PK.session_route(1408, "decode") == "product"
+    assert PK.session_route(1344, "decode") == "smooth" and PK._decode_plan(1344, 336)[1] > 0
     assert PK._encode_plan(1408, 352) == (PK._pick_rows("encode", 1408, 352), 0)
     assert PK._roundtrip_plan(1408, 352) == (PK._pick_rows("roundtrip", 1408, 352), 0)
     # 1344/336: R and L on the smooth route's radix-7 instance

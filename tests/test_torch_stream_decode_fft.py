@@ -203,8 +203,8 @@ def test_plans_routes_and_no_launch_on_the_cpu():
     """The FFT route's blocks: P and S's rows a multiple of 2 overlap with two
     blocks an SM where they fit (56 chunks, 4 FFTs at 1024/256); O's narrow
     blocks the smallest multiple of 2 overlap that holds 8 chunks; the
-    product route at n_fft neither FFT route takes (1344/336) keeps its
-    height.  On the CPU every
+    product route at n_fft neither FFT route takes (1408/352; 1344/336 takes
+    the smooth route's radix-7 instance) keeps its height.  On the CPU every
     session runs its plain version and nothing is counted."""
     assert PK._decode_plan(1024, 256) == (56, 4)
     assert PK._decode_plan(1024, 256, PK.PROJECT_SYN_ROWS) == (8, 4)
@@ -219,12 +219,15 @@ def test_plans_routes_and_no_launch_on_the_cpu():
             rows, teams = PK._decode_plan(n_fft, hop)
             assert PK._decode_fft_smem_bytes(rows, hop, n_fft, teams) <= TWO_BLOCKS_SMEM
             assert PK.kernel_covers("decode", n_fft, hop)
-    assert not fft_covers(1344) and PK._decode_plan(1344, 336) == (PK._pick_rows("decode", 1344, 336), 0)
-    assert PK._decode_plan(1344, 336, 8) == (8, 0)
+    assert not fft_covers(1408) and PK._decode_plan(1408, 352) == (PK._pick_rows("decode", 1408, 352), 0)
+    assert PK._decode_plan(1408, 352, 8) == (8, 0)
+    assert not fft_covers(1344) and PK._decode_plan(1344, 336)[1] > 0 and PK._decode_plan(1344, 336, 8)[1] > 0
     syn, wsyn, tw = PK._decode_operands(torch.hann_window(512), 4.0, 512, 128)
     assert syn is None and wsyn.shape == (512,) and tw.shape == (2, 512)
-    syn, wsyn, tw = PK._decode_operands(torch.hann_window(1344), 4.0, 1344, 336)
+    syn, wsyn, tw = PK._decode_operands(torch.hann_window(1408), 4.0, 1408, 352)
     assert syn.shape[0] == 4 and wsyn is None and tw is None
+    syn, wsyn, tw = PK._decode_operands(torch.hann_window(1344), 4.0, 1344, 336)
+    assert syn is None and wsyn.shape == (1344,) and tw.shape == (2, 1344)
     _, pc = chains(256, 64)
     PK.reset_launches()
     mags = torch.rand(2, 20, 129)

@@ -204,13 +204,15 @@ def test_blocks_of_the_smooth_plan_give_the_session(n_fft, hop):
 def test_routes_plans_and_operands():
     """The decodes take the smooth route at the even 5-smooth sizes (the
     plans a sweep of every plan on an H100 found fastest), the FFT route at
-    the powers of two, the product route at 1344/336; the operands follow
-    the route; nothing launches or counts on the CPU."""
+    the powers of two, the product route at 1408/352 (1344/336 takes the
+    radix-7 instance); the operands follow the route; nothing launches or
+    counts on the CPU."""
     assert PK._decode_plan(1200, 300) == (40, 2) and PK._decode_plan(960, 240) == (24, 4)
     assert PK._decode_plan(768, 192) == (24, 4) and PK._decode_plan(400, 100) == (48, 8)
     assert PK._decode_plan(1920, 480) == (16, 2)
     assert PK._decode_plan(1200, 300, PK.PROJECT_SYN_ROWS) == (8, 2)
-    assert PK._decode_plan(1024, 256) == (56, 4) and PK._decode_plan(1344, 336)[1] == 0
+    assert PK._decode_plan(1024, 256) == (56, 4) and PK._decode_plan(1408, 352)[1] == 0
+    assert PK._decode_plan(1344, 336)[1] > 0
     syn, wsyn, tw = PK._decode_operands(torch.hann_window(1200), 4.0, 1200, 300)
     assert syn is None and tw.shape == (2, 1200)
     assert torch.equal(wsyn, FF.irfft_window(torch.hann_window(1200) / 4.0, 1200, smooth=True))
