@@ -44,11 +44,12 @@
 // true>); O's analysis keeps its product route at those sizes.  With a
 // radix-7 stage as well (template argument kSeven = true) where
 // fft_covers_smooth7() takes n_fft and n_fft has a factor 7 (even, 2^a 3^b 5^c
-// 7^d: 896, 1344, 1680, 1764, ...), in R, the magnitude encode of N, L, M and
-// the decodes P, S and O's projection synthesis (session_encode_kernel<.,
-// true, true, true>, session_roundtrip_fft_kernel<., true, true>,
-// session_decode_fft_kernel<., true, true>); every other kernel keeps its
-// product route at those sizes (O's polish its two-launch projection).
+// 7^d: 896, 1344, 1680, 1764, ...), in R, the magnitude encode of N, L, M,
+// the decodes P, S and O's projection synthesis, and E and F (so A and B)
+// (session_encode_kernel<., true, true, true>, session_roundtrip_fft_kernel<.,
+// true, true>, session_decode_fft_kernel<., true, true>, spectral.cu:
+// block_magnitudes<., kFrontSmooth7>); every other kernel keeps its product
+// or factored route at those sizes (O's polish its two-launch projection).
 //
 // What they compute.  frames_rfft: X_r[k] = sum_n w[n] xs[r hop + n] e^{-2 pi
 // i n k / n} for k <= n / 2 of every frame r < n_frames of a sample buffer
@@ -145,7 +146,7 @@
 //   stage has b - q = 0 for every butterfly, so it turns nothing and writes
 //   where it reads.  1200 = 5 5 3 4 4: five trips; 1344 = 7 3 4 4 4.
 // * the radix-7 stage is compiled only into the instances that take a
-//   factor 7 (kSeven: R's, L's and the decode's): fft_passes_smooth<false> holds no
+//   factor 7 (kSeven: R's, L's, the decode's, E's and F's): fft_passes_smooth<false> holds no
 //   radix-7 loop and fft_smooth_plan<false> no count of sevens, so every
 //   other mixed-radix instance compiles as it did before the stage existed.
 //   Its butterfly (fft_dft<7>, the symmetric form of frames_fft._dft7) holds
@@ -232,7 +233,7 @@ __host__ __device__ inline bool fft_covers_smooth(int n) {
 }
 
 // fft_covers_smooth and the sizes with a factor 7 (frames_fft.fft_covers_smooth7):
-// the route of R, the magnitude encode, L and M
+// the route of R, the magnitude encode, L, M, the decodes, E and F
 __host__ __device__ inline bool fft_covers_smooth7(int n) {
     if (n < kFftMin || n > kFftMax || (n & 1) || (n & (n - 1)) == 0) return false;
     while (n % 2 == 0) n /= 2;

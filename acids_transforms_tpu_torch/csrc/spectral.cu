@@ -5,17 +5,19 @@
 //                                      fused_melspec; where n_fft is a power of two from
 //                                      64 to 4096 the wrapper sends it to the kFrontFft
 //                                      instance, where it is even and 5-smooth to the
-//                                      kFrontSmooth one, under the taps' own window)
+//                                      kFrontSmooth one, where it is even and 7-smooth with
+//                                      a factor 7 to the kFrontSmooth7 one, under the taps'
+//                                      own window)
 //   melspec_stats_kernel<.., kFrontFactored>    <- _stats_kernel_factored    (via _stats_call /
 //                                      fused_melspec_stats; the same rule)
-//   melspec_forward_kernel<.., kFrontFft / kFrontSmooth / kFrontProduct>  <- _forward_kernel
-//                                      (full-K: any window, taps=None)
-//   melspec_stats_kernel<.., kFrontFft / kFrontSmooth / kFrontProduct>    <- _stats_kernel
-//                                      (full-K)
+//   melspec_forward_kernel<.., kFrontFft / kFrontSmooth / kFrontSmooth7 / kFrontProduct>
+//                                      <- _forward_kernel (full-K: any window, taps=None)
+//   melspec_stats_kernel<.., kFrontFft / kFrontSmooth / kFrontSmooth7 / kFrontProduct>
+//                                      <- _stats_kernel (full-K)
 //   repr_forward_kernel<.., kFrontFactored> <- _repr_kernel_factored (via _repr_call /
-//                                     fused_spectral_repr), epilogue _repr_channels; the
-//                                     same rule as A's: the kFrontFft instance at a power
-//                                     of two, the kFrontSmooth one at an even 5-smooth
+//                                     fused_spectral_repr), epilogue _repr_channels; A's
+//                                     rule without the sevens: the kFrontFft instance at a
+//                                     power of two, the kFrontSmooth one at an even 5-smooth
 //                                     n_fft, under the taps' own window)
 //   repr_forward_kernel<.., kFrontFft / kFrontSmooth / kFrontProduct>  <- _repr_kernel
 //                                     (full-K)
@@ -40,7 +42,11 @@
 // 2^a 3^b 5^c, 64 to 4096 and no power of two (fft_covers_smooth: 768, 640,
 // 1536, 1920, ...) E, F, G and H (and so A, B and G and H with taps) take the
 // smooth route, kFrontSmooth: the same with frames_rfft<true>, the
-// mixed-radix stages.  Otherwise the product route,
+// mixed-radix stages.  Where n_fft is even and 2^a 3^b 5^c 7^d with a factor
+// 7 (fft_covers_smooth7: 896, 1344, 1568, ...) E and F (so A and B) take the
+// smooth route's radix-7 instance, kFrontSmooth7 (frames_rfft<true, true>);
+// G and H have none and keep the product route there, so no instance of
+// theirs compiles radix-7 code.  Otherwise the product route,
 // kFrontProduct: a window-folded basis of n_fft x F (cos |
 // -sin), all F bins in one fp32 product; the contraction is n_fft long
 // instead of hop, so it does `overlap` times the multiply-adds of the
@@ -135,10 +141,16 @@ constexpr int kFrontFactored = 0;  // chunk product, twiddle combine, taps conv 
 constexpr int kFrontProduct = 1;   // window-folded n_fft x F product (E, F where no FFT covers)
 constexpr int kFrontFft = 2;       // frames_rfft (E, F at a power of two n_fft, 64 .. 4096)
 constexpr int kFrontSmooth = 3;    // frames_rfft<true> (E, F at an even 5-smooth n_fft, no power of two)
+constexpr int kFrontSmooth7 = 4;   // frames_rfft<true, true> (E, F at an even 7-smooth n_fft with a factor 7)
 
 // the front ends that run frames_rfft
 __host__ __device__ constexpr bool front_is_fft(int front) {
-    return front == kFrontFft || front == kFrontSmooth;
+    return front == kFrontFft || front == kFrontSmooth || front == kFrontSmooth7;
+}
+
+// the front ends that run the mixed-radix frames_rfft<true, .>
+__host__ __device__ constexpr bool front_is_smooth(int front) {
+    return front == kFrontSmooth || front == kFrontSmooth7;
 }
 
 // What the FFT route reads: the window (n_fft,) and the twiddle table (2,
@@ -200,12 +212,13 @@ __device__ void block_magnitudes(const void* __restrict__ x_rows, long long b, i
     static_assert(kFront == kFrontFactored || kStage == kStageFull,
                   "the floor sweep cuts the factored front end");
     if constexpr (front_is_fft(kFront)) {
-        constexpr bool kSmooth = kFront == kFrontSmooth;
+        constexpr bool kSmooth = front_is_smooth(kFront);
+        constexpr bool kSeven = kFront == kFrontSmooth7;
         const int n_fft = overlap * hop;
-        const FftSmem fs = carve_fft<kSmooth>(work, n_fft);
-        fft_stage<kSmooth>(fft.win, fft.tw, fs, n_fft);  // load_rows' barrier covers it
+        const FftSmem fs = carve_fft<kSmooth, kSeven>(work, n_fft);
+        fft_stage<kSmooth, kSeven>(fft.win, fft.tw, fs, n_fft);  // load_rows' barrier covers it
         load_rows<kInt16>(x_rows, (size_t)b * n_rows_total + (size_t)tile * tile_t, n_rows, hop, xs);
-        frames_rfft<kSmooth>(xs, t_valid, hop, n_fft, fs, fft.teams, [&](int t, int k, float re, float im) {
+        frames_rfft<kSmooth, kSeven>(xs, t_valid, hop, n_fft, fs, fft.teams, [&](int t, int k, float re, float im) {
             const float p = __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
             mag_s[t * F + k] = power2 ? p : sqrtf(p);
         });  // frames_rfft ends with a barrier
@@ -306,9 +319,10 @@ __device__ void emit_tile(const float* mag_s, long long b, int t_base, int F, in
     }
 }
 
-// On the FFT and smooth routes at most 128 registers a thread, so that two
-// blocks share an SM where the wrapper's tile lets their shared memory
-// (ops/cuda/spectral.py: _pick_fft_plan, _pick_smooth_plan).
+// On the FFT and smooth routes (the radix-7 instance too) at most 128
+// registers a thread, so that two blocks share an SM where the wrapper's tile
+// lets their shared memory (ops/cuda/spectral.py: _pick_fft_plan,
+// _pick_smooth_plan).
 template <bool kInt16, bool kBf16, int kFront>
 __global__ void __launch_bounds__(kThreads, front_is_fft(kFront) ? 2 : 1)
 melspec_forward_kernel(const void* __restrict__ x_rows, int n_tiles, int tile_t,
@@ -335,7 +349,7 @@ melspec_forward_kernel(const void* __restrict__ x_rows, int n_tiles, int tile_t,
     const int t_base = tile * tile_t;
     switch (tile_t) {
         case 32:
-            if constexpr (kFront == kFrontSmooth) {
+            if constexpr (front_is_smooth(kFront)) {
                 // two halves of 16 frames: 32 sums a thread beside the smooth
                 // FFT's code spilled 64 B at 128 registers (each frame's sum
                 // runs over the bank's rows in the same order either way)
@@ -938,7 +952,8 @@ static size_t forward_fft_smem_bytes(int tile_t, int hop, int overlap, int F, in
 
 // The shared arguments of att_melspec_forward and att_melspec_stats: whether
 // they hold, and the route's shared memory.  fft_teams > 0 takes the FFT
-// route where fft_covers(n_fft), the smooth route where fft_covers_smooth.
+// route where fft_covers(n_fft), the smooth route where fft_covers_smooth7
+// (its radix-7 instance where n_fft has a factor 7).
 static bool melspec_args_ok(int P, int overlap, int tile_t, int hop, int F, int fft_teams) {
     const int n = overlap * hop;
     return P < kMaxTaps && overlap >= 1 && tile_t + overlap - 1 <= kMaxRows &&
@@ -946,15 +961,17 @@ static bool melspec_args_ok(int P, int overlap, int tile_t, int hop, int F, int 
            (fft_teams == 0 ||
             (P < 0 && F == n / 2 + 1 &&
              ((fft_covers(n) && fft_teams <= fft_max_teams(n)) ||
-              (fft_covers_smooth(n) && fft_teams <= fft_smooth_max_teams(n)))));
+              (fft_covers_smooth7(n) && fft_teams <= fft_smooth_max_teams(n)))));
 }
 
 // The front end of a launch: P >= 0 the factored one; full-K, fft_teams > 0
-// the FFT route where fft_covers(n_fft), else the smooth one; else the product.
+// the FFT route where fft_covers(n_fft), else the smooth one (its radix-7
+// instance where n_fft has a factor 7); else the product.
 static int melspec_front(int P, int n_fft, int fft_teams) {
     if (P >= 0) return kFrontFactored;
     if (fft_teams == 0) return kFrontProduct;
-    return fft_covers(n_fft) ? kFrontFft : kFrontSmooth;
+    if (fft_covers(n_fft)) return kFrontFft;
+    return n_fft % 7 == 0 ? kFrontSmooth7 : kFrontSmooth;
 }
 
 static size_t melspec_smem_bytes(int tile_t, int hop, int overlap, int F, int fft_teams) {
@@ -1001,7 +1018,7 @@ long long att_melspec_smem_bytes(int tile_t, int hop, int overlap, int F) {
 }
 
 // The same for the FFT route (n_fft a power of two) or the smooth route
-// (n_fft even, 5-smooth, no power of two) with `teams` FFTs side by side.
+// (n_fft even, 7-smooth, no power of two) with `teams` FFTs side by side.
 long long att_melspec_fft_smem_bytes(int tile_t, int hop, int overlap, int F, int teams) {
     return (long long)att::forward_fft_smem_bytes(tile_t, hop, overlap, F, teams);
 }
@@ -1014,8 +1031,9 @@ const char* att_error_string(int code) { return cudaGetErrorString((cudaError_t)
 // P < 0 selects a full-K front end, twr / twi and taps_host not read: with
 // fft_teams > 0 the FFT route (n_fft = overlap hop a power of two from 64 to
 // 4096, fft_teams <= 4096 / n_fft FFTs side by side) or the smooth route
-// (n_fft even, 2^a 3^b 5^c, 64 to 4096 and no power of two, fft_teams <=
-// fft_smooth_max_teams(n_fft)); window (n_fft,), fft_tw (2, n_fft) = (cos,
+// (n_fft even, 2^a 3^b 5^c 7^d, 64 to 4096 and no power of two, fft_teams <=
+// fft_smooth_max_teams(n_fft); the radix-7 instance where n_fft has a
+// factor 7); window (n_fft,), fft_tw (2, n_fft) = (cos,
 // -sin)(2 pi j / n_fft); bcos / bsin not read; with fft_teams == 0 the
 // product route (bcos / bsin the window-folded (n_fft, F) basis; window /
 // fft_tw not read).  Returns a cudaError_t.
@@ -1047,6 +1065,7 @@ int att_melspec_forward(const void* x_rows, int x_int16, long long B, int n_tile
     do {                                                                                   \
         if (front == kFrontFft) ATT_LAUNCH_FWD(I16, BF, kFrontFft);                        \
         else if (front == kFrontSmooth) ATT_LAUNCH_FWD(I16, BF, kFrontSmooth);             \
+        else if (front == kFrontSmooth7) ATT_LAUNCH_FWD(I16, BF, kFrontSmooth7);           \
         else if (front == kFrontProduct) ATT_LAUNCH_FWD(I16, BF, kFrontProduct);           \
         else ATT_LAUNCH_FWD(I16, BF, kFrontFactored);                                      \
     } while (0)
@@ -1108,9 +1127,8 @@ int att_melspec_stage(int stage, const float* x_rows, long long B, int n_tiles, 
 
 // partials: (B * n_tiles, 4, F) float32 scratch; stats: (4, F) float64 out
 // (rows: sum, sumsq, min, max per bin).  P < 0: a full-K front end, and
-// fft_teams selects its route (FFT, smooth or product), as in
-// att_melspec_forward.  Returns a
-// cudaError_t.
+// fft_teams selects its route (FFT, smooth, the smooth route's radix-7
+// instance, or product), as in att_melspec_forward.  Returns a cudaError_t.
 int att_melspec_stats(const void* x_rows, int x_int16, long long B, int n_tiles, int tile_t,
                       int n_rows_total, int hop, int overlap, int F, int T, const float* bcos,
                       const float* bsin, const float* twr, const float* twi,
@@ -1138,6 +1156,7 @@ int att_melspec_stats(const void* x_rows, int x_int16, long long B, int n_tiles,
     do {                                                                                   \
         if (front == kFrontFft) ATT_LAUNCH_STATS(I16, kFrontFft);                          \
         else if (front == kFrontSmooth) ATT_LAUNCH_STATS(I16, kFrontSmooth);               \
+        else if (front == kFrontSmooth7) ATT_LAUNCH_STATS(I16, kFrontSmooth7);             \
         else if (front == kFrontProduct) ATT_LAUNCH_STATS(I16, kFrontProduct);             \
         else ATT_LAUNCH_STATS(I16, kFrontFactored);                                        \
     } while (0)

@@ -20,12 +20,14 @@ K's synthesis and O's polish also take the mixed-radix schedule wherever
 :func:`fft_covers_smooth` takes ``n_fft`` (even, ``2^a 3^b 5^c``, 64 to 4096,
 not a power of two: 1200, 960, 768, 400, 1920, ...; the Griffin-Lim steps,
 K's synthesis and the polish where their block fits too); R, N's encode, L,
-M and the streaming decodes (P, S, O's projection synthesis) also where
+M, the streaming decodes (P, S, O's projection synthesis) and the full-K
+melspec forward and fit (E, F, and so A and B) also where
 :func:`fft_covers_smooth7` does (a factor 7 as well: 896, 1344, 1680, 1764,
-...; L and M where their block fits), with a radix-7 stage; every other
-``n_fft`` keeps the window-folded products of
-``dft_common.cuh`` and ``synth_ola.cuh`` (and A, B, G and H their factored
-front end; O's polish the two-launch projection).
+...; L and M where their block fits, E and F where a tile does: not at
+4032/2016), with a radix-7 stage; every other ``n_fft`` keeps the
+window-folded products of ``dft_common.cuh`` and ``synth_ola.cuh`` (and A,
+B, G and H their factored front end; O's polish the two-launch
+projection).
 
 The schedule, which :func:`frames_rfft_reference` and
 :func:`frames_irfft_reference` repeat step for step:
@@ -92,9 +94,9 @@ def fft_covers(n_fft: int) -> bool:
     """Whether the FFT route takes ``n_fft``: a power of two from 64 to 4096.
     Elsewhere R, L, M, the decodes, E and F (with A and B), G and H, J, C, D,
     I, K's synthesis and O's polish take the smooth route where
-    :func:`fft_covers_smooth` does (R, N's encode, L, M and the decodes P, S
-    and O's projection synthesis where :func:`fft_covers_smooth7` does), and
-    the products (A, B, G and H the
+    :func:`fft_covers_smooth` does (R, N's encode, L, M, the decodes P, S
+    and O's projection synthesis, and E and F with A and B where
+    :func:`fft_covers_smooth7` does), and the products (A, B, G and H the
     factored front end, O's polish the two-launch projection) at every other
     ``n_fft``."""
     n = int(n_fft)
@@ -118,9 +120,11 @@ def fft_covers_smooth7(n_fft: int) -> bool:
     even, ``2^a 3^b 5^c 7^d`` (``a >= 1``), from 64 to 4096, and not a power
     of two; every size :func:`fft_covers_smooth` takes, and those with a
     factor 7 (896, 1344, 1680, 1764, ...).  R, the magnitude encode, L, M
-    (L and M where their block fits) and the streaming decodes P, S and O's
-    projection synthesis take it; every other kernel (O's polish among them)
-    keeps :func:`fft_covers_smooth`."""
+    (L and M where their block fits), the streaming decodes P, S and O's
+    projection synthesis, and the full-K melspec forward and fit E and F (so
+    A and B under the taps' own window; ``spectral.melspec_route``'s
+    ``"melspec"`` family) take it; every other kernel (G, H, J, C, D, I,
+    K's synthesis, O's polish) keeps :func:`fft_covers_smooth`."""
     return _smooth(n_fft, (2, 3, 5, 7))
 
 

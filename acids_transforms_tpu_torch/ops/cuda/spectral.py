@@ -16,28 +16,32 @@ chunk-factored one runs; with ``taps=None`` and a ``window`` (any window, the
 DGT's gaussian for one) the full-K one, where frame ``t`` is the slice ``row[t
 hop : t hop + n_fft]`` of the same padded rows.  The full-K front end of
 ``fused_melspec`` and ``fused_melspec_stats`` (kernels E and F) has three
-routes, picked by ``n_fft`` alone (:func:`melspec_route`): where it is a
-power of two from 64 to 4096 (``frames_fft.fft_covers``) the FFT route
-(``csrc/fft_smem.cuh:frames_rfft``, the window and a twiddle table, no basis;
-plain version ``frames_fft.frames_rfft_reference``); where it is even and
-``2^a 3^b 5^c`` from 64 to 4096 and no power of two
-(``frames_fft.fft_covers_smooth``: 768, 640, 1536, 1920, ...) the smooth
-route (the mixed-radix ``frames_rfft<true>``; plain version
-``frames_rfft_reference(..., smooth=True)``); elsewhere the product route (a
-basis of ``n_fft x 2F`` with the window folded in, ``overlap`` times the
-multiply-adds of the factored form).  The forward and the statistics with
-``taps`` (kernels A and B) take the same FFT and smooth routes by the same
-rule, under the taps' own window (``frames_fft.taps_window``): E's and F's
-instances compute A's and B's functions for any window.  Every other
-``n_fft`` (896 = 2^7 7, 1344, ...) keeps the factored front end
-(:func:`_kernel_plan`).  All need ``hop | n_fft``.
+routes, picked by ``n_fft`` alone (:func:`melspec_route`, family
+``"melspec"``): where it is a power of two from 64 to 4096
+(``frames_fft.fft_covers``) the FFT route (``csrc/fft_smem.cuh:frames_rfft``,
+the window and a twiddle table, no basis; plain version
+``frames_fft.frames_rfft_reference``); where it is even and ``2^a 3^b 5^c
+7^d`` from 64 to 4096 and no power of two (``frames_fft.fft_covers_smooth7``:
+768, 640, 1536, 1920, and with a factor 7 896, 1344, 1568, ...) the smooth
+route (the mixed-radix ``frames_rfft<true>``, its radix-7 instance
+``frames_rfft<true, true>`` where ``n_fft`` has a factor 7; plain version
+``frames_rfft_reference(..., smooth=True)``); elsewhere (1408 = 2^7 11, odd
+sizes, above 4096) the product route (a basis of ``n_fft x 2F`` with the
+window folded in, ``overlap`` times the multiply-adds of the factored form).
+The forward and the statistics with ``taps`` (kernels A and B) take the same
+FFT and smooth routes by the same rule, under the taps' own window
+(``frames_fft.taps_window``): E's and F's instances compute A's and B's
+functions for any window.  Every other ``n_fft`` keeps the factored front
+end (:func:`_kernel_plan`).  All need ``hop | n_fft``.
 
 ``fused_spectral_repr`` and ``fused_repr_stats`` are the two-channel twins
 (Polar, PolarIF, Cartesian): one DFT feeds channel 1 (``|X|`` through mel,
 contrast and affine, or ``Re``) and channel 2 (the angle, the frame-local
 instantaneous frequency, or ``Im``) with an affine each.  Their full-K front
-end (kernels G and H full-K) takes the same three routes by the same rule
-(:func:`melspec_route`); on the FFT and the smooth route a block with the IF
+end (kernels G and H full-K) takes the same three routes by the rule of its
+own family (:func:`melspec_route`, ``"repr"``: the smooth route where
+``fft_covers_smooth``, without a radix-7 instance, so 896 and 1344 keep the
+product route); on the FFT and the smooth route a block with the IF
 computes two frames before its tile (the halo frame and its FFT partner), so
 that every frame goes through the FFT with the partner it has in the plain
 version's whole-clip schedule.  With ``taps`` the forward (kernel G) and the
@@ -83,6 +87,7 @@ from .frames_fft import (
     fft_area_floats,
     fft_covers,
     fft_covers_smooth,
+    fft_covers_smooth7,
     fft_max_teams,
     fft_smooth_max_teams,
     fft_twiddles,
@@ -97,6 +102,7 @@ __all__ = [
     "fused_melspec_stats_reference",
     "fused_melspec_available",
     "melspec_route",
+    "MELSPEC_ROUTE_FAMILIES",
     "fused_melspec_op",
     "fused_spectral_repr",
     "fused_spectral_repr_reference",
@@ -127,7 +133,8 @@ launches: Dict[str, int] = {
 #: ``"<kernel>:product"`` / ``"<kernel>:factored"`` (each also counts in
 #: ``launches``): the full-K kernels, and A, B, G and H with taps (the FFT
 #: route where ``fft_covers(n_fft)``, the smooth route where
-#: ``fft_covers_smooth(n_fft)``, the factored front end elsewhere)
+#: :func:`melspec_route` says so, its radix-7 instance counted there too,
+#: the factored front end elsewhere)
 routes: Dict[str, int] = {
     "fused_melspec_fullk:fft": 0, "fused_melspec_fullk:smooth": 0, "fused_melspec_fullk:product": 0,
     "fused_melspec_stats_fullk:fft": 0, "fused_melspec_stats_fullk:smooth": 0,
@@ -200,16 +207,18 @@ def _pick_fft_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
 
 
 def _pick_smooth_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
-    """``(tile_t, teams)`` of E and F (and A and B) on the smooth route:
-    among the frame tiles (``TILES``) and the powers of two of FFTs side by
-    side up to ``fft_smooth_max_teams(n_fft)`` whose block fits shared
-    memory, the most tile frames per round of pair FFTs times the blocks an
-    SM holds (its shared memory at a block's bytes, 1 KB reserved each, at
-    most two: the instances' 128 registers), ties to the wider tile, then
-    to fewer FFTs; or None.  768/256 and 768/192: 16 frames of 4 FFTs;
-    640/160 32 of 4; 1536/384 8 of 2 (each the fastest of a sweep of every
-    plan on an H100, ``chip_smoke.py``'s ``smooth plan sweep``); 1920/480 16
-    of 2, 7 % over the fastest (8 of 1)."""
+    """``(tile_t, teams)`` of E and F (and A and B) on the smooth route, its
+    radix-7 instance included: among the frame tiles (``TILES``) and the
+    powers of two of FFTs side by side up to ``fft_smooth_max_teams(n_fft)``
+    whose block fits shared memory, the most tile frames per round of pair
+    FFTs times the blocks an SM holds (its shared memory at a block's bytes,
+    1 KB reserved each, at most two: every instance of the route runs at
+    most 128 registers, ``__launch_bounds__(256, 2)``), ties to the wider
+    tile, then to fewer FFTs; or None (4032/2016: no tile fits).  768/256
+    and 768/192: 16 frames of 4 FFTs; 640/160 32 of 4; 1536/384 8 of 2
+    (each the fastest of a sweep of every plan on an H100,
+    ``chip_smoke.py``'s ``smooth plan sweep``); 1920/480 16 of 2, 7 % over
+    the fastest (8 of 1); 896/224 16 of 4."""
     overlap, n_bins = n_fft // hop, n_fft // 2 + 1
     best, score = None, 0.0
     for tile_t in TILES:
@@ -225,15 +234,29 @@ def _pick_smooth_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
     return best
 
 
-def melspec_route(n_fft: int) -> str:
-    """The route of E and F (and of A and B, under the taps' own window) at
-    ``n_fft``: ``"fft"`` where ``fft_covers`` (a power of two from 64 to
-    4096), ``"smooth"`` where ``fft_covers_smooth`` (even, ``2^a 3^b 5^c``,
-    64 to 4096, no power of two), else ``"other"`` (E and F's product, A and
-    B's factored front end)."""
+#: the kernel families :func:`melspec_route` reads: ``"melspec"`` (E, F, and
+#: A and B under the taps' own window) and ``"repr"`` (G and H, full-K and
+#: with taps)
+MELSPEC_ROUTE_FAMILIES = ("melspec", "repr")
+
+
+def melspec_route(n_fft: int, family: str) -> str:
+    """The route of the kernel family ``family`` at ``n_fft``: ``"fft"``
+    where ``fft_covers`` (a power of two from 64 to 4096), ``"smooth"`` where
+    the family's mixed-radix instances take it, else ``"other"`` (E and F's
+    product, A and B's factored front end; G's and H's alike).  The
+    ``"melspec"`` family (E, F, A, B) has a radix-7 instance, so its smooth
+    route is ``fft_covers_smooth7`` (even, ``2^a 3^b 5^c 7^d``, 64 to 4096,
+    no power of two: 896, 1344, 1568, ... too); the ``"repr"`` family (G, H)
+    has none and keeps ``fft_covers_smooth`` (even, ``2^a 3^b 5^c``).  Every
+    caller names its family: the C++ entry of E and F takes the sevens, G's
+    and H's does not."""
+    if family not in MELSPEC_ROUTE_FAMILIES:
+        raise ValueError("melspec_route: family %r is none of %s" % (family, MELSPEC_ROUTE_FAMILIES))
     if fft_covers(n_fft):
         return "fft"
-    return "smooth" if fft_covers_smooth(n_fft) else "other"
+    covers = fft_covers_smooth7 if family == "melspec" else fft_covers_smooth
+    return "smooth" if covers(n_fft) else "other"
 
 
 def fused_melspec_available(n_fft: int, hop_length: int, taps) -> bool:
@@ -406,32 +429,33 @@ def _fullk_spectrum(x, n_fft, hop, center, window, smooth: bool = False):
     are overlapping slices of the prepared rows.  Where ``fft_covers(n_fft)``
     the FFT route's schedule over the whole clip (``frames_rfft_reference``:
     frames paired ``(2j, 2j + 1)``, as the kernels' even tiles pair them);
-    with ``smooth`` where ``fft_covers_smooth(n_fft)`` the smooth route's
-    (every kernel's plain version passes it, through :func:`_spectrum`;
-    without it tests get the product route there); otherwise the window
-    lies in the basis."""
+    with ``smooth`` where ``fft_covers_smooth7(n_fft)`` the smooth route's,
+    radix-7 stages included where ``n_fft`` has a factor 7 (every kernel's
+    plain version passes it where its family's rule says so, through
+    :func:`_spectrum`; without it tests get the product route there);
+    otherwise the window lies in the basis."""
     rows, T, _ = _prepare_rows(x, n_fft, hop, center)
     flat = _rows_to_float(rows).reshape(rows.shape[0], -1)
     frames = flat.unfold(-1, n_fft, hop)[:, :T]
     if fft_covers(n_fft):
         return frames_rfft_reference(frames, window.to(x.device))
-    if smooth and fft_covers_smooth(n_fft):
+    if smooth and fft_covers_smooth7(n_fft):
         return frames_rfft_reference(frames, window.to(x.device), smooth=True)
     WC, WS = _fullk_basis(window.to(x.device), n_fft)
     return torch.matmul(frames, WC), torch.matmul(frames, WS)
 
 
-def _spectrum(x, n_fft, hop, center, taps, window):
-    """(re, im) of the front end and route the kernels take
+def _spectrum(x, n_fft, hop, center, taps, window, family: str = "melspec"):
+    """(re, im) of the front end and route the kernels of ``family`` take
     (:func:`melspec_route`): the full-K one on its route without ``taps``;
-    with them, where ``fft_covers(n_fft)`` or ``fft_covers_smooth(n_fft)``,
-    the FFT or the smooth route's schedule under the taps' own window, else
-    the factored front end."""
+    with them, on the FFT or the smooth route, that route's schedule under
+    the taps' own window, else the factored front end."""
+    route = melspec_route(n_fft, family)
     if taps is None:
-        return _fullk_spectrum(x, n_fft, hop, center, window, smooth=True)
-    if melspec_route(n_fft) != "other":
+        return _fullk_spectrum(x, n_fft, hop, center, window, smooth=route == "smooth")
+    if route != "other":
         (w,) = _tables(taps_window, x.device, tuple(float(t) for t in taps), n_fft)
-        return _fullk_spectrum(x, n_fft, hop, center, w, smooth=True)
+        return _fullk_spectrum(x, n_fft, hop, center, w, smooth=route == "smooth")
     return _factored_spectrum(x, n_fft, hop, center, taps)
 
 
@@ -475,9 +499,10 @@ def fused_melspec_reference(
     window: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_melspec` (same arguments), on the
-    route the kernel takes (:func:`melspec_route`: the FFT or the smooth
-    route's schedule over the whole clip, with ``taps`` under the taps' own
-    window; the product or the factored front end elsewhere)."""
+    route the kernel takes (:func:`melspec_route`, family ``"melspec"``: the
+    FFT or the smooth route's schedule over the whole clip, radix-7 stages
+    included where ``n_fft`` has a factor 7, with ``taps`` under the taps'
+    own window; the product or the factored front end elsewhere)."""
     _check_input(x, n_fft, hop_length, taps, window)
     re, im = _spectrum(x, n_fft, hop_length, center, taps, window)
     return _melspec_epilogue(re, im, mel_bank, offset, scale, contrast, power, out_dtype)
@@ -580,12 +605,15 @@ def _stream() -> ctypes.c_void_p:
 def _kernel_plan(n_fft, hop, taps) -> Tuple[int, int]:
     """``(tile_t, teams)`` of the forward (A, E) and the statistics (B, F)
     for this shape, ``teams = 0`` off the FFT and smooth routes, or raise:
-    the kernels never give way.  The route is :func:`melspec_route`'s, with
-    taps (under their own window) or without: the FFT route
-    (:func:`_pick_fft_plan`) where ``fft_covers(n_fft)``, the smooth route
-    (:func:`_pick_smooth_plan`) where ``fft_covers_smooth(n_fft)``, the
-    factored or the product front end elsewhere."""
-    route = melspec_route(n_fft)
+    the kernels never give way.  The route is :func:`melspec_route`'s for
+    the ``"melspec"`` family, with taps (under their own window) or without:
+    the FFT route (:func:`_pick_fft_plan`) where ``fft_covers(n_fft)``, the
+    smooth route (:func:`_pick_smooth_plan`; the radix-7 instance where
+    ``n_fft`` has a factor 7) where ``fft_covers_smooth7(n_fft)``, the
+    factored or the product front end elsewhere.  Where the smooth route
+    finds no plan (4032/2016) it raises: the product or factored block does
+    not fit there either, and no shape changes route silently."""
+    route = melspec_route(n_fft, "melspec")
     if route != "other" and fused_melspec_available(n_fft, hop, taps):
         plan = _pick_fft_plan(n_fft, hop) if route == "fft" else _pick_smooth_plan(n_fft, hop)
         if plan is None:
@@ -868,11 +896,12 @@ def _if_rows(ph: torch.Tensor, weighted: bool) -> torch.Tensor:
 
 def _repr_channels(x, n_fft, hop, center, taps, window, second, contrast, mel_bank, weighted):
     """Pre-affine (channel 1, channel 2) of the representation kernels, on
-    the front end and route the kernel takes (:func:`melspec_route`): the FFT
-    or the smooth route's schedule over the whole clip (with ``taps`` under
-    the taps' own window), the factored or the product front end
-    elsewhere."""
-    re, im = _spectrum(x, n_fft, hop, center, taps, window)
+    the front end and route the kernel takes (:func:`melspec_route`, family
+    ``"repr"``): the FFT or the smooth route's schedule over the whole clip
+    (with ``taps`` under the taps' own window), the factored or the product
+    front end elsewhere (896 = 2^7 7 among them: G and H have no radix-7
+    instance)."""
+    re, im = _spectrum(x, n_fft, hop, center, taps, window, "repr")
     im = _pin_nyquist(im)
     if second == "imag":
         return re, im
@@ -901,7 +930,7 @@ def fused_spectral_repr_reference(
     window: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`fused_spectral_repr`, on the route the
-    kernel takes (:func:`melspec_route`)."""
+    kernel takes (:func:`melspec_route`, family ``"repr"``)."""
     _check_repr(x, n_fft, hop_length, second, taps, window)
     if second == "imag":
         mel_bank, contrast = None, "none"
@@ -961,13 +990,13 @@ def _repr_kernel_tile(n_fft, hop, taps) -> int:
 def _repr_plan(n_fft, hop, taps, stats, second, mel) -> Tuple[int, int]:
     """``(tile_t, teams)`` of the representation kernels for this shape,
     ``teams = 0`` off the FFT and smooth routes, or raise: the kernels never
-    give way.  The route is :func:`melspec_route`'s for every launch, with
-    taps (under their own window) or without, as :func:`_kernel_plan` has
-    it: the FFT route (:func:`_pick_repr_fft_plan`) where
-    ``fft_covers(n_fft)``, the smooth route (:func:`_pick_repr_smooth_plan`)
-    where ``fft_covers_smooth(n_fft)``, the factored or the product front
-    end elsewhere."""
-    route = melspec_route(n_fft)
+    give way.  The route is :func:`melspec_route`'s for the ``"repr"``
+    family, for every launch, with taps (under their own window) or without:
+    the FFT route (:func:`_pick_repr_fft_plan`) where ``fft_covers(n_fft)``,
+    the smooth route (:func:`_pick_repr_smooth_plan`) where
+    ``fft_covers_smooth(n_fft)``, the factored or the product front end
+    elsewhere (896, 1344: no radix-7 instance of G or H)."""
+    route = melspec_route(n_fft, "repr")
     if route != "other" and fused_melspec_available(n_fft, hop, taps):
         pick = _pick_repr_fft_plan if route == "fft" else _pick_repr_smooth_plan
         plan = pick(n_fft, hop, stats, second, mel)

@@ -15,17 +15,21 @@ measurement).  The parts:
   card's time per call (CUDA events over 3 calls back to back, median of
   ``--runs`` runs), on ``--batch`` stereo clips of ``--seconds`` s at 44.1
   kHz made on the card from ``--seed``, at n_fft 128, 256, 512, 768, 896,
-  1024, 2048 and 4096 with overlap 4, at 64 with overlap 2 (the kernels take
-  a hop that is a multiple of 32 only) and at 1024 with overlap 2 and 8.
-  768 = 2^8 3 measures the smooth route of every pattern's kernels (A, E,
-  G); 896 = 2^7 7 their factored and product routes.  The patterns:
+  1024, 1408, 2048 and 4096 with overlap 4, at 64 with overlap 2 (the
+  kernels take a hop that is a multiple of 32 only) and at 1024 with overlap
+  2 and 8.  768 = 2^8 3 measures the smooth route of every pattern's kernels
+  (A, E, G); 896 = 2^7 7 the smooth route's radix-7 instance of the
+  magnitude patterns' kernels (A, E) and the factored and product routes of
+  the representations' (G, which has no radix-7 instance); 1408 = 2^7 11
+  the magnitude patterns' factored and product routes
+  (:func:`route_points`).  The patterns:
   ``Mono + STFT(hann) + Magnitude(log1p, mel)`` (melspec_taps), ``Mono +
   DGT + Magnitude(log1p)`` (melspec_fullk), ``Mono + STFT | DGT + PolarIF``
   (repr_if taps / fullk), ``Mono + STFT | DGT + Polar`` (repr_phase_imag
   taps / fullk) and ``Mono + MFCC`` (mfcc).
 * ``fit``: ``fuse_fit(backend="kernel")`` against ``chain.fit`` for the
   DGT's magnitude and PolarIF chains (F, H full-K) at the same n_fft (64 to
-  4096, overlap 4 but 64/32).
+  4096 with 1408, overlap 4 but 64/32).
 * ``stream``: each session route (``backend="fused"``) against the generic
   chunk scan on ``--sessions`` mono sessions of ``--session-seconds`` s of
   ``OverlapAdd + RealtimeSTFT`` at each of :data:`STREAM_SHAPES`: 1024/256
@@ -45,8 +49,9 @@ measurement).  The parts:
 
 The derived table: a shape region per pattern (the measured power-of-two
 n_fft around 1024 where the kernel wins, and the routes it admits: ``fft``,
-``smooth`` where the pattern's kernel won at 768/192, ``factored`` /
-``product`` where it won at 896/224); the full-K fit's largest
+``smooth`` where the pattern's kernel won at every smooth point of
+:func:`route_points`, ``factored`` / ``product`` where it won at every
+other-route point); the full-K fit's largest
 n_fft up to which both fits win at every measured power of two, and per fit
 the routes it admits by the same rule; per session mode the
 largest measured batch up
@@ -79,10 +84,10 @@ import torch
 from .._device import resolve_device
 
 SR = 44100
-SHAPES = [(64, 32), (128, 32), (256, 64), (512, 128), (768, 192), (896, 224), (1024, 256), (2048, 512),
-          (4096, 1024), (1024, 512), (1024, 128)]
+SHAPES = [(64, 32), (128, 32), (256, 64), (512, 128), (768, 192), (896, 224), (1024, 256), (1408, 352),
+          (2048, 512), (4096, 1024), (1024, 512), (1024, 128)]
 #: the fit's shapes: overlap 4 (64/32 at overlap 2)
-FIT_SHAPES = SHAPES[:9]
+FIT_SHAPES = SHAPES[:10]
 #: the powers of two the FFT route covers, each measured at overlap 4 but 64
 #: (overlap 2: a hop of 16 is no multiple of 32)
 POW2 = {64: "64/32", 128: "128/32", 256: "256/64", 512: "512/128", 1024: "1024/256", 2048: "2048/512",
@@ -90,18 +95,26 @@ POW2 = {64: "64/32", 128: "128/32", 256: "256/64", 512: "512/128", 1024: "1024/2
 KINDS = ["melspec_taps", "melspec_fullk", "repr_if_taps", "repr_if_fullk", "repr_phase_taps",
          "repr_phase_fullk", "mfcc"]
 FIT_KINDS = ["fit_melspec_fullk", "fit_repr_if_fullk"]
-#: the points that measure each route off a power of two: every pattern's
-#: kernels (A, B, E, F, G, H) take the smooth route at 768 (2^8 3) and their
-#: factored / product front end at 896 (2^7 7)
+#: the points that measure each route off a power of two for the
+#: representations (G, H): the smooth route at 768 (2^8 3), their factored /
+#: product front end at 896 (2^7 7: no radix-7 instance of G or H)
 SMOOTH_POINTS = {"smooth": ["768/192"], "other": ["896/224"]}
+#: the same for the magnitude patterns (A, B, E, F): the smooth route at 768
+#: and, on its radix-7 instance, at 896; their factored / product front end
+#: at 1408 (2^7 11)
+SEVEN_POINTS = {"smooth": ["768/192", "896/224"], "other": ["1408/352"]}
+#: the patterns whose kernels are A, B, E or F
+MAGNITUDE_KINDS = ("melspec_taps", "melspec_fullk", "mfcc", "fit_melspec_fullk")
 
 
 def route_points(kind: str) -> Dict[str, List[str]]:
     """Per route a pattern's kernel takes off a power of two (``smooth``,
     and ``other``: its factored or product front end), the shapes that
-    measure it: the same for every pattern (``kind``), each of whose kernels
-    has the smooth route."""
-    return SMOOTH_POINTS
+    measure it: :data:`SEVEN_POINTS` for the magnitude patterns
+    (:data:`MAGNITUDE_KINDS`: A, B, E and F take the smooth route at 896 on
+    their radix-7 instance), :data:`SMOOTH_POINTS` for the
+    representations."""
+    return SEVEN_POINTS if kind in MAGNITUDE_KINDS else SMOOTH_POINTS
 
 
 def other_route(kind: str) -> str:

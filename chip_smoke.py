@@ -67,9 +67,9 @@ for the syntheses of C, D, I, J, L, M, K, P, S and O) at a power of two
 from 64 to 4096, the window-folded products elsewhere (R, L, M, P, S,
 O's synthesis, E, F, G, H, J, C, D, I and K's synthesis take a third route,
 the mixed-radix FFT, at even 5-smooth n_fft; R, the magnitude encode, L,
-M, P, S and O's synthesis also at even 7-smooth n_fft with a factor 7, on
-their radix-7 instances, the roundtrips where their block fits); so do the log-mel
-forward and fit (A and B: E's and F's FFT and smooth instances under the
+M, P, S, O's synthesis, E and F also at even 7-smooth n_fft with a factor
+7, on their radix-7 instances, the roundtrips where their block fits); so do the log-mel
+forward and fit (A and B: E's and F's FFT, smooth and radix-7 instances under the
 taps' own window, the factored front end elsewhere), the representations' forward
 and fit statistics with taps (G and H: G and H full-K's FFT and smooth
 instances under the taps' own window), and O's polish
@@ -82,15 +82,17 @@ which come out bit-identical; A within 2e-5 and B and H with taps with their
 extrema bit-identical and sums within 1e-5, at every power of two from 64
 under hann, hamming and blackman) and against a float64 oracle at 1024, 512,
 2048 and 4096 (C, D, I, K, G, H, P, S and O's synthesis at every power of
-two from 64), the factored route at 896/224 (A, B, G, H), and
-the product route at 896/224 (E, F, G, H, J, C, D, I, K),
-8192/2048 (J) and 1408/352 (R, L, M, P, S, O's synthesis),
+two from 64), the factored route at 896/224 (G, H) and 1408/352 (A, B), and
+the product route at 896/224 (G, H, J, C, D, I, K),
+8192/2048 (J) and 1408/352 (R, L, M, P, S, O's synthesis, E, F),
 and the smooth route of R, L, M, P, S, O's synthesis and O's polish (the
 mixed-radix FFT) at 1200/300, 960/240, 768/192, 400/100 and 1920/480, and
 of R, the magnitude encode, L, M, P, S and O's synthesis (its radix-7
 instances) at 1344/336 and 896/224 (L, M, P, S and O's synthesis also at
 overlap 2, 3, 5, 6, 7 and 8), bit-identical to its plain version, of E and F (A and B under hann and blackman taps) at
-768/256, 768/192, 640/160, 384/96, 1536/384, 1920/480 and 3072/768 (|X| and
+768/256, 768/192, 640/160, 384/96, 1536/384, 1920/480 and 3072/768 and (their
+radix-7 instances) at 896/224, 896/128, 896/448, 1344/448, 1344/192,
+1568/224, 1120/160 and 672/96 (|X| and
 the extrema bit-identical, the mel product's and the sums' order aside), of
 J, C, D and I at those seven framings (bit-identical, D to four C, every
 frame of C, I and J within 1e-5 of the float64 oracle), of G and H full-K
@@ -118,15 +120,18 @@ STFT(768, 192) log-mel (A, B on the smooth route) and Polar chains' fit and
 forward, a DGT(768, 256) chain's fit and forward (E, F on the smooth
 route), ``pghi`` and ``pghi_gl`` (J on the smooth route), DGT(768, 256) +
 PolarIF's fit and forward (G, H full-K on the smooth route; the Polar chain
-puts G and H with taps there), the STFT(896, 224) log-mel and Polar and the
-DGT(896, 224) magnitude and PolarIF chains' fit and forward, and the
-magnitude chain's ``pghi_gl``: A, B, G, H factored and E, F, G, H full-K, J
-on the product route, 896 = 2^7 7).  Phase
+puts G and H with taps there), the STFT(896, 224) log-mel and DGT(896, 224)
+magnitude chains' fit and forward (A, B, E, F on their radix-7 instances),
+the STFT(896, 224) Polar and DGT(896, 224) PolarIF chains' fit and forward
+and the magnitude chain's ``pghi_gl``: G, H factored and G, H full-K, J on
+the product route, 896 = 2^7 7; the STFT(1408, 352) log-mel and DGT(1408,
+352) magnitude chains: A, B factored and E, F on the product route, 1408 =
+2^7 11).  Phase
 6 runs the floor sweep of A's factored design
 (``acids_transforms_tpu_torch.tools.sweep_kernel_floor``: kernel T, A cut
 after each of its stages) at the main path's shape, prints each stage's
 increment beside its own floor, and holds every stage against its plain
-version; at 896/224, where A keeps the factored front end, ``s7_full`` is
+version; at 1408/352, where A keeps the factored front end, ``s7_full`` is
 bit-identical to A and, ``_prepare_rows`` included, within 10 % of its
 time (both the card's time a call, the calls queued behind a sleep kernel,
 timed in turns).  Phase 3 also holds the
@@ -178,6 +183,11 @@ K_STEP_CYCLES = 54
 # even 5-smooth framings of the log-mel / magnitude kernels' smooth route (A,
 # B, E, F): 2^8 3 at overlap 3 and 4, 2^7 5, 2^7 3, 2^9 3, 2^7 3 5, 2^10 3
 SMOOTH_SHAPES = ((768, 256), (768, 192), (640, 160), (384, 96), (1536, 384), (1920, 480), (3072, 768))
+# even 7-smooth framings with a factor 7 of the log-mel / magnitude kernels'
+# radix-7 instance (A, B, E, F): 2^7 7 at overlap 4, 7 and 2, 2^6 3 7 at
+# overlap 3 and 7, 2^5 7^2 (radices 7 7) at overlap 7, 2^5 5 7, 2^5 3 7
+MELSPEC_SEVEN_SHAPES = ((896, 224), (896, 128), (896, 448), (1344, 448), (1344, 192), (1568, 224), (1120, 160),
+                        (672, 96))
 # the session framings of the smooth route (R, L, M, the decodes, O's polish):
 # 2^4 3 5^2, 2^6 3 5, 2^8 3, 2^4 5^2, 2^7 3 5 at overlap 4
 SESSION_SMOOTH_SHAPES = ((1200, 300), (960, 240), (768, 192), (400, 100), (1920, 480))
@@ -196,11 +206,14 @@ def log(msg: str) -> None:
 
 #: the smooth route's plan sweep: the framings it times E and F at
 PLAN_SWEEP_SHAPES = ((768, 256), (768, 192), (640, 160), (1536, 384), (1920, 480))
+#: and those of E's and F's radix-7 instance
+SEVEN_PLAN_SWEEP_SHAPES = ((896, 224), (1568, 224))
 
 
 def smooth_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
     """E and F (full-K, the DGT's gaussian window, log1p) on the smooth route
-    at each of PLAN_SWEEP_SHAPES under every plan the kernels take (frame
+    at each of PLAN_SWEEP_SHAPES (and on its radix-7 instance at each of
+    SEVEN_PLAN_SWEEP_SHAPES) under every plan the kernels take (frame
     tile 32, 16, 8 x 1, 2, 4 FFTs side by side, within the route's teams and
     shared memory), the card's time a call back to back (device_ms); E's
     output must be bit-identical under every plan (the frame pairs do not
@@ -212,7 +225,7 @@ def smooth_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
     rule = spectral._kernel_plan
     out = {}
     try:
-        for n_fft, hop in PLAN_SWEEP_SHAPES:
+        for n_fft, hop in PLAN_SWEEP_SHAPES + SEVEN_PLAN_SWEEP_SHAPES:
             w = gaussian_dgt_window(n_fft, device=mono.device)
             ov, F = n_fft // hop, n_fft // 2 + 1
             pick = rule(n_fft, hop, None)
@@ -656,21 +669,25 @@ def gl_route_turns(mono: torch.Tensor, repeats: int) -> dict:
     return out
 
 
-def melspec_smooth_instance(res: dict):
+def melspec_smooth_instance(res: dict, seven: bool = False):
     """The resources of the two smooth instances phase 5 times (float32
-    rows, float32 out): the forward's and the statistics'."""
-    sm = melspec_smooth_resources(res)
-    fwd = next(v for k, v in sm.items() if "melspec_forward_kernelILb0ELb0ELi3EE" in k)
-    stats = next(v for k, v in sm.items() if "melspec_stats_kernelILb0ELi3EE" in k)
+    rows, float32 out): the forward's and the statistics'; ``seven``: the
+    radix-7 instances'."""
+    front = "Li4E" if seven else "Li3E"
+    sm = melspec_smooth_resources(res, seven)
+    fwd = next(v for k, v in sm.items() if "melspec_forward_kernelILb0ELb0E" + front + "E" in k)
+    stats = next(v for k, v in sm.items() if "melspec_stats_kernelILb0E" + front + "E" in k)
     return fwd, stats
 
 
-def melspec_smooth_resources(res: dict) -> dict:
+def melspec_smooth_resources(res: dict, seven: bool = False) -> dict:
     """The build log's resources (``_build.kernel_resources()``) of the
     melspec kernels' smooth instances: template argument kFront =
-    kFrontSmooth = 3, ``Li3E`` in the mangled name."""
+    kFrontSmooth = 3, ``Li3E`` in the mangled name; ``seven``: the radix-7
+    instances, kFrontSmooth7 = 4, ``Li4E``."""
+    front = "Li4E" if seven else "Li3E"
     return {k: v for k, v in res.items()
-            if ("melspec_forward_kernel" in k or "melspec_stats_kernel" in k) and "Li3E" in k}
+            if ("melspec_forward_kernel" in k or "melspec_stats_kernel" in k) and front in k}
 
 
 def repr_smooth_resources(res: dict) -> dict:
@@ -733,9 +750,10 @@ def session_seven_resources(res: dict) -> dict:
 def smooth_instance_resources(res: dict) -> dict:
     """The build log's resources of every mixed-radix instance of every
     kernel, by its mangled name: the sessions' (encode, roundtrip, decode,
-    polish; their kSmooth argument true), E's and F's, G's and H's, the
-    Griffin-Lim steps' and K's synthesis's."""
+    polish; their kSmooth argument true), E's and F's (the radix-7 ones
+    too), G's and H's, the Griffin-Lim steps' and K's synthesis's."""
     out = dict(melspec_smooth_resources(res))
+    out.update(melspec_smooth_resources(res, seven=True))
     out.update({k: v for k, v in res.items() if ("repr_forward_kernel" in k or "repr_stats_kernel" in k)
                 and "Li3E" in k})
     out.update(gl_smooth_resources(res))
@@ -2202,7 +2220,10 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
       clips), its fit and forward within 1e-5 / 1e-4 of the eager chain's, as
       phase 4b holds the main shape; A and B likewise through the
       STFT(768, 192) log-mel chain; the same two chains at 896/224 (2^7 7)
-      put E and F on the product route and A and B on the factored one.
+      put E, F, A and B on the smooth route's radix-7 instance (timed in
+      turns with the product and factored routes 896 took before), at
+      1408/352 (2^7 11) E and F on the product route and A and B on the
+      factored one.
       The Griffin-Lim invert of an ``STFT(768, 192)`` takes C and D's smooth
       route, of an ``STFT(896, 224)`` their product route; the 768/256
       chain's ``pghi_gl`` invert takes J's smooth route, the 896/224 chain's
@@ -2628,21 +2649,26 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
 
     # A, B, E and F through the entry points: the DGT magnitude chain's and
     # the STFT log-mel chain's fit and forward at 768 (2^8 3: the smooth
-    # route) and at 896 (2^7 7: E and F on the product route, A and B on the
-    # factored one), each against the eager chain.  backend="kernel" forces
-    # the kernels: under auto regions.py admits the smooth route at 768 and
-    # A's and B's factored route at 896, and refuses E's and F's product
-    # route at 896 (1.39x and 1.14x the eager route on the H100)
+    # route), at 896 (2^7 7: the smooth route's radix-7 instance, counted
+    # `:smooth7` for its rows; the fit + forward timed in turns with the
+    # product / factored route 896 ran before) and at 1408 (2^7 11: E and F
+    # on the product route, A and B on the factored one), each against the
+    # eager chain.  backend="kernel" forces the kernels; auto follows
+    # regions.py (logged)
     import acids_transforms_tpu_torch as att
     from acids_transforms_tpu_torch import regions
     from acids_transforms_tpu_torch.ops.cuda import spectral as sp
 
     audio = mono[:16, None].expand(-1, 2, -1).contiguous()      # up to 16 stereo clips
 
-    def fit_forward(label, chain, want):
+    def fit_forward(label, chain, want, seven=False):
         """fuse_fit + fuse_forward of `chain` on the kernels, one launch of
         each kernel of `want` (its route tally), fit and forward against the
-        eager chain; returns the fitted chain and its forward."""
+        eager chain; returns the fitted chain and its forward.  `seven`: the
+        launches are the radix-7 instance's (counted `<kernel>:smooth7`), and
+        the fit + forward is timed in turns with the product / factored
+        route (old, new, new, old; one call alone, host clock to the card's
+        end, median of 3)."""
         zero()
         fitted = att.fuse_fit(chain, backend="kernel")(audio)
         y = att.fuse_forward(fitted, backend="kernel")(audio)
@@ -2653,7 +2679,24 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
             f"{ {k: v for k, v in sp.launches.items() if v} }, routes {got}; auto would take the kernel: {auto}")
         require(got == {k: 1 for k in want} and launched() == 2, f"{label}: expected one launch each of {want}")
         for k, v in got.items():
-            counts[k] += v
+            counts[k + ("7" if seven else "")] += v
+        if seven:
+            plan = sp._kernel_plan
+
+            def fit_fwd():
+                return att.fuse_forward(att.fuse_fit(chain, backend="kernel")(audio), backend="kernel")(audio)
+
+            def on_old(fn):
+                sp._kernel_plan = lambda n_fft, hop, taps: (sp._kernel_tile(n_fft, hop, taps), 0)
+                try:
+                    return fn()
+                finally:
+                    sp._kernel_plan = plan
+
+            turns = [on_old(lambda: time_ms(fit_fwd, 3)), time_ms(fit_fwd, 3), time_ms(fit_fwd, 3),
+                     on_old(lambda: time_ms(fit_fwd, 3))]
+            log(f"    fit + forward, one call alone (host clock to the card's end, median of 3), in turns the "
+                f"route 896 took before, radix-7, radix-7, before: {' / '.join(f'{t:.3f}' for t in turns)} ms")
         e_fit = chain.fit(audio)
         e_off = abs(fitted[2].norm.offset.item() - e_fit[2].norm.offset.item()) / abs(e_fit[2].norm.scale.item())
         e_scl = abs(fitted[2].norm.scale.item() - e_fit[2].norm.scale.item()) / abs(e_fit[2].norm.scale.item())
@@ -2676,11 +2719,15 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
                              ("fused_melspec_fullk:smooth", "fused_melspec_stats_fullk:smooth"))
     require(regions.melspec_region_ok(768, 256, False) == ("smooth" in regions.table()["fuse_forward"][
         "melspec_fullk"]["routes"]), "regions: E's decision at 768 is not the table's smooth route")
-    d_fit_y, y_y = fit_forward("DGT(896, 224) magnitude chain (E, F product)", dgt_mag(896, 224),
-                               ("fused_melspec_fullk:product", "fused_melspec_stats_fullk:product"))
+    d_fit_y, y_y = fit_forward("DGT(896, 224) magnitude chain (E, F radix-7)", dgt_mag(896, 224),
+                               ("fused_melspec_fullk:smooth", "fused_melspec_stats_fullk:smooth"), seven=True)
+    fit_forward("DGT(1408, 352) magnitude chain (E, F product)", dgt_mag(1408, 352),
+                ("fused_melspec_fullk:product", "fused_melspec_stats_fullk:product"))
     fit_forward("STFT(768, 192) log-mel chain (A, B smooth)", stft_logmel(768, 192),
                 ("fused_melspec:smooth", "fused_melspec_stats:smooth"))
-    fit_forward("STFT(896, 224) log-mel chain (A, B factored)", stft_logmel(896, 224),
+    fit_forward("STFT(896, 224) log-mel chain (A, B radix-7)", stft_logmel(896, 224),
+                ("fused_melspec:smooth", "fused_melspec_stats:smooth"), seven=True)
+    fit_forward("STFT(1408, 352) log-mel chain (A, B factored)", stft_logmel(1408, 352),
                 ("fused_melspec:factored", "fused_melspec_stats:factored"))
     # G and H through the entry points: STFT + Polar (taps) and DGT +
     # PolarIF (full-K), fit and forward, at 768 (the smooth route) and at 896
@@ -3081,7 +3128,9 @@ def sinebank_regions_phase(dev, audio, mono, stream, wrappers):
               ("4h DGT(768, 256) + PolarIF", "if", 768, 256, False),
               ("4h STFT(896, 224) log-mel", "melspec", 896, 224, True),
               ("4h DGT(896, 224)", "melspec", 896, 224, False), ("4h STFT(896, 224) + Polar", "phase", 896, 224, True),
-              ("4h DGT(896, 224) + PolarIF", "if", 896, 224, False)]
+              ("4h DGT(896, 224) + PolarIF", "if", 896, 224, False),
+              ("4h STFT(1408, 352) log-mel", "melspec", 1408, 352, True),
+              ("4h DGT(1408, 352)", "melspec", 1408, 352, False)]
     main_ok = True
     for label, kind, n_fft, hop, taps in shapes:
         if kind == "melspec":
@@ -3124,7 +3173,7 @@ def sinebank_regions_phase(dev, audio, mono, stream, wrappers):
             pts.add(r["n_fft_min"] // 2)
         if r["n_fft_max"] < 4096:
             pts.add(2 * r["n_fft_max"])
-        pts.update((768, 896))          # the smooth route, and the factored / product one
+        pts.update((768, 896, 1408))    # the smooth route (896 its radix-7 instance), the factored / product one
         for n_fft in sorted(pts):
             hop = 32 if n_fft == 64 else n_fft // 4   # the kernels' hop is a multiple of 32
             if kind == "mfcc":
@@ -3753,9 +3802,10 @@ def sweep_phase(args, dev, mono, bank, off, scl, taps, kernels, bound_of, wrappe
     own additive signal, as the tool has it) and counts its launches, prints
     each stage's increment beside that increment's own floor, holds every
     stage against its plain version on the main path's clips, and, at
-    896/224 where A keeps the factored front end (the main path's A takes the
-    FFT route, 768 the smooth one), ``s7_full`` bit-identical to A and within
-    10 % of phase 5's row A_factored; appends row T."""
+    1408/352 where A keeps the factored front end (the main path's A takes
+    the FFT route, 768 the smooth one, 896 its radix-7 instance), ``s7_full``
+    bit-identical to A and within 10 % of phase 5's row A_factored; appends
+    row T."""
     from acids_transforms_tpu_torch import transforms as T
     from acids_transforms_tpu_torch.ops.cuda import spectral
     from acids_transforms_tpu_torch.ops.fft import taps_for_window
@@ -3843,16 +3893,16 @@ def sweep_phase(args, dev, mono, bank, off, scl, taps, kernels, bound_of, wrappe
     require(e_86 <= 1e-6, "T s8_mel_dense differs from s6_mel_banded")
     del out
 
-    # s7_full is A where A is factored: at 896/224 (phase 5's row A_factored,
-    # the same clips, bank and affine), bit-identical, and its time with
-    # _prepare_rows within 10 % of that row's (a fused_melspec call in a run
-    # of calls back to back: _prepare_rows, then the kernel; so _prepare_rows
-    # then s7_full, timed the same way)
-    n_fft_g, hop_g = 896, 224
+    # s7_full is A where A is factored: at 1408/352 (2^7 11; phase 5's row
+    # A_factored, the same clips, bank and affine), bit-identical, and its
+    # time with _prepare_rows within 10 % of that row's (a fused_melspec call
+    # in a run of calls back to back: _prepare_rows, then the kernel; so
+    # _prepare_rows then s7_full, timed the same way)
+    n_fft_g, hop_g = 1408, 352
     taps_g = taps_for_window(get_window("hann", n_fft_g, device=dev))
     bank_g = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=n_fft_g).mel_bank
     tile_g = spectral._kernel_tile(n_fft_g, hop_g, taps_g)
-    require(spectral._kernel_plan(n_fft_g, hop_g, taps_g) == (tile_g, 0), "A must be factored at 896/224")
+    require(spectral._kernel_plan(n_fft_g, hop_g, taps_g) == (tile_g, 0), "A must be factored at 1408/352")
     rows_g, n_fr_g, _ = spectral._prepare_rows(mono, n_fft_g, hop_g, True, tile_g)
     shape_g = (n_fft_g, hop_g, n_fr_g, taps_g, bank_g, off, scl)
     spectral.reset_launches()
@@ -4147,7 +4197,7 @@ def main() -> int:
                 continue
             hop_s, f_s = n_fft_s // ov_s, n_fft_s // 2 + 1
             tile_t, teams = spectral._kernel_plan(n_fft_s, hop_s, None)
-            require(teams > 0 and spectral.melspec_route(n_fft_s) == "smooth"
+            require(teams > 0 and spectral.melspec_route(n_fft_s, "melspec") == "smooth"
                     and spectral._kernel_plan(n_fft_s, hop_s, (0.5, -0.25)) == (tile_t, teams),
                     f"{n_fft_s}/{hop_s}: E, F, A and B must take the smooth route")
             for t_s in spectral.TILES:
@@ -4182,6 +4232,55 @@ def main() -> int:
         f"{spectral._repr_plan(768, 256, None, True, 'if', False)}, G / H Polar with taps at 768/192 "
         f"{spectral._repr_plan(768, 192, (0.5, -0.25), False, 'phase', True)} / "
         f"{spectral._repr_plan(768, 192, (0.5, -0.25), True, 'phase', False)})")
+    # E / F (and A / B) on the smooth route's radix-7 instance: every even
+    # 7-smooth shape with a factor 7 the gate takes (hop a multiple of 32,
+    # overlap 2 to 8; 42 shapes), the plan's layout against the source's at
+    # the plan's team count and one team; 4032/2016 refused on both routes
+    # (no smooth plan, no product tile); G and H keep their product and
+    # factored front ends there; the six instances' registers (at most 128:
+    # two blocks an SM, as _pick_smooth_plan counts) and spill
+    mseven_res = melspec_smooth_resources(_build.kernel_resources(), seven=True)
+    for name, res in mseven_res.items():
+        log(f"    {name}: {res['registers']} registers, spill stores / loads {res.get('spill_stores', 0)} / "
+            f"{res.get('spill_loads', 0)} B (the melspec radix-7 instance)")
+    require(len(mseven_res) == 6 and all(r["registers"] <= 128 for r in mseven_res.values()),
+            f"the melspec radix-7 instances: six, at most 128 registers (found {len(mseven_res)})")
+    n_seven_m = n_seven_refused = 0
+    for n_fft_s in [n for n in range(64, 4097, 2) if ff.fft_covers_smooth7(n) and n % 7 == 0]:
+        for ov_s in range(2, 9):
+            if n_fft_s % ov_s or (n_fft_s // ov_s) % 32:
+                continue
+            hop_s, f_s = n_fft_s // ov_s, n_fft_s // 2 + 1
+            require(spectral.melspec_route(n_fft_s, "melspec") == "smooth"
+                    and spectral.melspec_route(n_fft_s, "repr") == "other"
+                    and spectral._repr_plan(n_fft_s, hop_s, None, False, "if", True)[1] == 0,
+                    f"{n_fft_s}/{hop_s}: E, F, A, B smooth and G, H product / factored")
+            n_seven_m += 1
+            if spectral._pick_smooth_plan(n_fft_s, hop_s) is None:
+                for tp in (None, (0.5, -0.25)):
+                    try:
+                        spectral._kernel_plan(n_fft_s, hop_s, tp)
+                        require(False, f"{n_fft_s}/{hop_s}: no smooth plan, the plan must raise")
+                    except NotImplementedError:
+                        pass
+                require(spectral._pick_tile(hop_s, ov_s, f_s) is None,
+                        f"{n_fft_s}/{hop_s}: a product tile fits where the smooth route refuses")
+                n_seven_refused += 1
+                continue
+            tile_t, teams = spectral._kernel_plan(n_fft_s, hop_s, None)
+            require(teams > 0 and spectral._kernel_plan(n_fft_s, hop_s, (0.5, -0.25)) == (tile_t, teams),
+                    f"{n_fft_s}/{hop_s}: E, F, A and B must take the radix-7 instance")
+            for tm in sorted({1, teams}):
+                require(lib.att_melspec_fft_smem_bytes(tile_t, hop_s, ov_s, f_s, tm)
+                        == spectral._fft_smem_bytes(tile_t, hop_s, ov_s, f_s, tm),
+                        f"{n_fft_s}/{hop_s}: the melspec radix-7 shared-memory size: wrapper and source disagree")
+            require(spectral._fft_smem_bytes(tile_t, hop_s, ov_s, f_s, teams) <= ff.MAX_SMEM,
+                    f"{n_fft_s}/{hop_s}: the radix-7 plan exceeds shared memory")
+    log(f"    the melspec radix-7 instance: {n_seven_m} shapes, {n_seven_m - n_seven_refused} plans whose shared-memory "
+        f"sizes agree, {n_seven_refused} refused (4032/2016); plans 896/224 {spectral._kernel_plan(896, 224, None)}, "
+        f"1568/224 {spectral._kernel_plan(1568, 224, None)}, 1344/448 {spectral._kernel_plan(1344, 448, None)} as "
+        f"(frame tile, FFTs side by side)")
+    require(n_seven_m == 42 and n_seven_refused == 1, "the melspec radix-7 route: 42 shapes, 4032/2016 refused")
     # C / D / I and J on the smooth route: every shape their gates take (hop
     # a multiple of 32, overlap 2 to 8) takes it (no smooth shape falls back
     # to the product), the plans' layouts at their team counts and one team;
@@ -4346,13 +4445,24 @@ def main() -> int:
             return ("E", "F"), None, gaussian_dgt_window(n_fft, device=dev)
         return ("A", "B"), taps_for_window(get_window(wname, n_fft)), None
 
+    def taps_oracle_window(taps, n_fft):
+        """The cosine-sum window of ``taps`` in float64 (the oracle's)."""
+        k = torch.arange(n_fft, device=dev, dtype=torch.float64)
+        return sum((1.0 if p == 0 else 2.0) * c * torch.cos(2 * math.pi * p * k / n_fft) for p, c in enumerate(taps))
+
+    def seven_suffix(n_fft, route):
+        """"7" for the smooth route's radix-7 instance (n_fft with a factor
+        7): its rows are apart from the 5-smooth instance's."""
+        return "7" if route == "smooth" and n_fft % 7 == 0 else ""
+
     def check_forward(name, x, n_fft, hop, wname, bank, offset, scale, power=1.0, contrast="log1p", taps=None):
         """A or E against its plain version.  A (taps) takes the FFT route
         wherever n_fft is a power of two from 64 to 4096 (E's instance under
         the taps' own window: |X| bit-identical to the plain version, the mel
         product's fmaf sums in another order than cuBLAS), the smooth route
-        where it is even and 5-smooth (row A_smooth), the factored front end
-        elsewhere (row A_factored)."""
+        where it is even and 5-smooth (row A_smooth) and its radix-7 instance
+        where it is even and 7-smooth with a factor 7 (row A_smooth7), the
+        factored front end elsewhere (row A_factored)."""
         (A, _), taps_w, window = front_end(wname, n_fft)
         taps = taps_w if taps is None else taps
         kw = dict(mel_bank=bank, offset=offset, scale=scale, contrast=contrast, taps=taps,
@@ -4362,9 +4472,9 @@ def main() -> int:
         y_p = spectral.fused_melspec_reference(x, n_fft, hop, **kw)
         torch.cuda.synchronize()
         if taps is not None:
-            route = {"fft": "fft", "smooth": "smooth", "other": "factored"}[spectral.melspec_route(n_fft)]
+            route = {"fft": "fft", "smooth": "smooth", "other": "factored"}[spectral.melspec_route(n_fft, "melspec")]
             require(spectral.routes[f"fused_melspec:{route}"] == 1, f"A {name}: not on the {route} route")
-            A = {"fft": "A", "smooth": "A_smooth", "factored": "A_factored"}[route]
+            A = {"fft": "A", "smooth": "A_smooth", "factored": "A_factored"}[route] + seven_suffix(n_fft, route)
         e = rel_err(y_k, y_p)
         # fp32 sums in another order than cuBLAS: a few 1e-7 per product,
         # through sqrt, mel and log1p; 2e-5 leaves a decade of room
@@ -4391,7 +4501,8 @@ def main() -> int:
         """B or F against its plain version.  B (taps) takes the FFT route
         wherever n_fft is a power of two from 64 to 4096 (F's instance under
         the taps' own window), the smooth route where it is even and
-        5-smooth, the factored front end elsewhere: on the FFT and smooth
+        7-smooth (its radix-7 instance where n_fft has a factor 7), the
+        factored front end elsewhere: on the FFT and smooth
         routes the statistics are bit-identical to the plain version's where
         the order of the sums does not enter (the extrema: one value each),
         and the sums differ by the order of the float64 reduction of the
@@ -4402,13 +4513,13 @@ def main() -> int:
         s_k = spectral.fused_melspec_stats(x, n_fft, hop, "log1p", taps=taps, window=window)
         s_p = spectral.fused_melspec_stats_reference(x, n_fft, hop, "log1p", taps=taps, window=window)
         if taps is not None:
-            route = {"fft": "fft", "smooth": "smooth", "other": "factored"}[spectral.melspec_route(n_fft)]
+            route = {"fft": "fft", "smooth": "smooth", "other": "factored"}[spectral.melspec_route(n_fft, "melspec")]
             require(spectral.routes[f"fused_melspec_stats:{route}"] == 1, f"B {name}: not on the {route} route")
             if route != "factored":
                 same = s_k["min"].item() == s_p["min"].item() and s_k["max"].item() == s_p["max"].item()
                 log(f"  B {name} ({route} route): extrema bit-identical to the plain version: {same}")
                 require(same, f"B {name}: the {route} route's extrema differ from the plain version's")
-            Bk = {"fft": "B", "smooth": "B_smooth", "factored": "B_factored"}[route]
+            Bk = {"fft": "B", "smooth": "B_smooth", "factored": "B_factored"}[route] + seven_suffix(n_fft, route)
         e_sum = abs(s_k["sum"].item() - s_p["sum"].item()) / abs(s_p["sum"].item())
         e_sq = abs(s_k["sumsq"].item() - s_p["sumsq"].item()) / abs(s_p["sumsq"].item())
         e_min = abs(s_k["min"].item() - s_p["min"].item())
@@ -4550,13 +4661,15 @@ def main() -> int:
     # (torch.stft in float64 of the same clips) within 1e-5 of the largest
     # magnitude; F's statistics of log1p |X| against the oracle's (sums within
     # 1e-5 relative, extrema within 1e-5 of the largest).  The smooth route
-    # (n_fft even and 5-smooth: 768 = 2^8 3, 640, 384, 1536, 1920, 3072) the
-    # same, and |X| bit-identical to its plain version (the mixed-radix
-    # frames_rfft in the plain version's order, as R's); the product route
-    # at 896/224 (2^7 7) against its plain version, as above.
+    # (n_fft even and 5-smooth: 768 = 2^8 3, 640, 384, 1536, 1920, 3072; its
+    # radix-7 instance at even 7-smooth n_fft with a factor 7: 896, 1344,
+    # 1568, 1120, 672) the same, and |X| bit-identical to its plain version
+    # (the mixed-radix frames_rfft in the plain version's order, as R's); the
+    # product route at 1408/352 (2^7 11) against its plain version, as
+    # above.
     def check_fullk_routes(name, x, n_fft, hop):
         w = gaussian_dgt_window(n_fft, device=dev)
-        front = {"fft": "fft", "smooth": "smooth", "other": "product"}[spectral.melspec_route(n_fft)]
+        front = {"fft": "fft", "smooth": "smooth", "other": "product"}[spectral.melspec_route(n_fft, "melspec")]
         fft = front != "product"
         kw = dict(mel_bank=None, offset=0.0, scale=1.0, contrast="none", taps=None, window=w)
         spectral.reset_launches()
@@ -4589,22 +4702,54 @@ def main() -> int:
                 f"E / F {name}: out of budget")
         require(same or front != "smooth", f"E {name}: the smooth route's |X| is not bit-identical to its plain "
                                            "version")
-        key = {"fft": "", "smooth": "_smooth", "product": "_product"}[front]
+        key = {"fft": "", "smooth": "_smooth", "product": "_product"}[front] + seven_suffix(n_fft, front)
         errs["E" + key] = max(errs.get("E" + key, 0.0), abs_err(m_k, m_p))
         errs["F" + key] = max(errs.get("F" + key, 0.0),
                               *(abs(s_k[k].item() - s_p[k].item()) for k in ("min", "max")))
 
     check_fullk_routes(f"main shape {B} x {L}", mono, N_FFT, HOP)
-    for n_fft, hop in ((512, 128), (2048, 512), (4096, 1024), (896, 224)) + SMOOTH_SHAPES:
+    for n_fft, hop in ((512, 128), (2048, 512), (4096, 1024), (1408, 352)) + SMOOTH_SHAPES + MELSPEC_SEVEN_SHAPES:
         check_fullk_routes(f"{n_fft}/{hop}, 5 x 20000", rag, n_fft, hop)
     # A and B on the smooth route at the same shapes (hann; blackman, P = 2,
-    # at 768/192 and 1920/480), with each shape's square mel bank, the bf16
-    # store and the int16 input; and factored at 896/224
-    for n_fft, hop in SMOOTH_SHAPES + ((896, 224),):
+    # at 768/192, 1920/480, 896/224 and 1568/224), with each shape's square
+    # mel bank, the bf16 store and the int16 input; and factored at 1408/352
+    for n_fft, hop in SMOOTH_SHAPES + MELSPEC_SEVEN_SHAPES + ((1408, 352),):
         bank_s = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=n_fft).mel_bank
-        for wname in ("hann", "blackman") if (n_fft, hop) in ((768, 192), (1920, 480)) else ("hann",):
+        two = ((768, 192), (1920, 480), (896, 224), (1568, 224))
+        for wname in ("hann", "blackman") if (n_fft, hop) in two else ("hann",):
             check_forward(f"{n_fft}/{hop} {wname}, 5 x 20000", rag, n_fft, hop, wname, bank_s, -0.2, 0.7)
             check_stats(f"{n_fft}/{hop} {wname}, 5 x 20000", rag, n_fft, hop, wname)
+    # A and B on the radix-7 instance, bit for bit: A's |X| (no bank, no
+    # contrast, no affine) equal to its plain version and within 1e-5 of the
+    # float64 oracle under the taps' cosine-sum window; A with the bank
+    # equal to E under taps_window; B's extrema equal to its plain version's
+    for n_fft, hop in MELSPEC_SEVEN_SHAPES:
+        for wname in ("hann", "blackman"):
+            taps_s = taps_for_window(get_window(wname, n_fft))
+            w_tw = torch.as_tensor(ff.taps_window(tuple(float(t) for t in taps_s), n_fft), device=dev)
+            bank_s = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=n_fft).mel_bank
+            spectral.reset_launches()
+            kw0 = dict(mel_bank=None, offset=0.0, scale=1.0, contrast="none", taps=taps_s)
+            a_k = spectral.fused_melspec(rag, n_fft, hop, **kw0)
+            a_p = spectral.fused_melspec_reference(rag, n_fft, hop, **kw0)
+            a_b = spectral.fused_melspec(rag, n_fft, hop, bank_s, 0.1, 1.2, taps=taps_s)
+            e_b = spectral.fused_melspec(rag, n_fft, hop, bank_s, 0.1, 1.2, taps=None, window=w_tw)
+            b_k = spectral.fused_melspec_stats(rag, n_fft, hop, "log1p", taps=taps_s)
+            b_p = spectral.fused_melspec_stats_reference(rag, n_fft, hop, "log1p", taps=taps_s)
+            ora = torch.stft(rag.double(), n_fft, hop, window=taps_oracle_window(taps_s, n_fft), center=True,
+                             pad_mode="reflect", return_complex=True).abs().transpose(-2, -1)
+            torch.cuda.synchronize()
+            same = (torch.equal(a_k, a_p), torch.equal(a_b, e_b),
+                    b_k["min"].item() == b_p["min"].item() and b_k["max"].item() == b_p["max"].item())
+            e_o = rel_err(a_k, ora)
+            del ora
+            log(f"  A / B {n_fft}/{hop} {wname} (radix-7 instance, plan {spectral._kernel_plan(n_fft, hop, taps_s)}): "
+                f"|X| bit-identical to the plain version {same[0]}, vs float64 oracle {e_o:.3e} (tol 1e-05); with "
+                f"the bank bit-identical to E under taps_window {same[1]}; B's extrema bit-identical {same[2]}")
+            require(all(same) and e_o <= 1e-5 and spectral.routes["fused_melspec:smooth"] == 2
+                    and spectral.routes["fused_melspec_stats:smooth"] == 1
+                    and spectral.routes["fused_melspec_fullk:smooth"] == 1,
+                    f"A / B {n_fft}/{hop} {wname}: the radix-7 instance differs from its plain version")
     # A on the smooth route is E's instance under the taps' own window: bit
     # for bit the same output (with the mel bank, so the product's order too)
     w_t = get_window("hann", 768, device=dev)
@@ -4702,15 +4847,10 @@ def main() -> int:
     # to 1e-5, the budget of channel 1 (measured: 3e-7 at n_fft 1024, 1e-6
     # at 2048 and 4096 where the factored front end adds hop-long chunk
     # products), and unweighted at bins above 1e-3 of the largest to 1e-3 rad.
-    def taps_oracle_window(taps, n_fft):
-        """The cosine-sum window of ``taps`` in float64 (the oracle's)."""
-        k = torch.arange(n_fft, device=dev, dtype=torch.float64)
-        return sum((1.0 if p == 0 else 2.0) * c * torch.cos(2 * math.pi * p * k / n_fft) for p, c in enumerate(taps))
-
     def repr_route(n_fft, taps):
-        """The route of G and H at n_fft (spectral.melspec_route's rule) and
-        the suffix of its rows' keys."""
-        route = spectral.melspec_route(n_fft)
+        """The route of G and H at n_fft (spectral.melspec_route's rule for
+        the "repr" family) and the suffix of its rows' keys."""
+        route = spectral.melspec_route(n_fft, "repr")
         if route == "other":
             route = "factored" if taps is not None else "product"
         return route, {"fft": "", "smooth": "_smooth", "factored": "_factored", "product": "_product"}[route]
@@ -4903,7 +5043,7 @@ def main() -> int:
     # (hann taps) at 896/224 as check_repr / check_repr_stats hold them.
     def check_repr_route(name, x, n_fft, hop):
         w = gaussian_dgt_window(n_fft, device=dev)
-        route = spectral.melspec_route(n_fft)
+        route = spectral.melspec_route(n_fft, "repr")
         require(route in ("fft", "smooth"), f"G / H full-K {name}: no FFT or smooth route's shape")
         S = torch.stft(x.double(), n_fft, hop, window=w.double(), center=True, pad_mode="reflect",
                        return_complex=True).transpose(-2, -1)
@@ -5214,7 +5354,8 @@ def main() -> int:
             "the main path's fit (B) and forward (A) must take the FFT route")
     for k in ("fused_melspec_stats", "fused_melspec"):
         counts[k + ":fft"] = spectral.routes[k + ":fft"]
-        counts[k + ":smooth"] = 0        # the smooth and the factored route's launches: phase 4h
+        counts[k + ":smooth"] = 0        # the smooth, radix-7 and factored route's launches: phase 4h
+        counts[k + ":smooth7"] = 0
         counts[k + ":factored"] = 0
     sp_m = path_split(att, chain, audio)
     log(f"  fit + forward, median of 5 runs: {sp_m['wall']:.2f} ms to the card's end; the host returns from the "
@@ -5303,6 +5444,7 @@ def main() -> int:
             and pghi_kernel.routes["pghi_synthesize:product"] == 0,
             "pghi_synthesize: the DGT path's launches must all take the FFT route")
     counts.update({k: v for k, v in spectral.routes.items() if "_fullk:" in k})   # A and B's: phase 4
+    counts.update({k + ":smooth7": 0 for k in ("fused_melspec_fullk", "fused_melspec_stats_fullk")})   # phase 4h
     counts.update(pghi_kernel.routes)
     counts.update({k: dgt_counts[k] for k in ("fused_melspec_fullk", "fused_melspec_stats_fullk",
                                               "pghi_plan", "pghi_phases", "pghi_synthesize")})
@@ -5691,8 +5833,10 @@ def main() -> int:
     # A's and B's smooth route at 768/192 (2^8 3) on the same clips, with
     # the square bank of that size: E's and F's smooth instances under the
     # taps' own window, frames_rfft<true>'s operations (smooth_design_flops);
-    # their factored route at 896/224 (2^7 7): that design's chunk products,
-    # twiddle combine and taps conv.  Phase 4h's launches, both
+    # their radix-7 instance at 896/224 (2^7 7) likewise (rows A_smooth7,
+    # B_smooth7); their factored route at 1408/352 (2^7 11): that design's
+    # chunk products, twiddle combine and taps conv.  Phase 4h's launches,
+    # all three
     bank_g = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=n_fft_g).mel_bank
     nnz_g = int((bank_g != 0).sum().item())
     kw_ag = dict(kw, mel_bank=bank_g, taps=taps_g)
@@ -5710,8 +5854,31 @@ def main() -> int:
     bank_y = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=n_fft_y).mel_bank
     nnz_y = int((bank_y != 0).sum().item())
     kw_ay = dict(kw, mel_bank=bank_y, taps=taps_y)
-    require(spectral.melspec_route(n_fft_g) == "smooth" and spectral.melspec_route(n_fft_y) == "other",
-            "phase 5: A and B must be smooth at 768 and factored at 896")
+    n11, hop11 = 1408, 352
+    w11 = get_window("hann", n11, device=dev)
+    taps11 = taps_for_window(w11)
+    T11, F11, ov11 = 1 + L // hop11, n11 // 2 + 1, n11 // hop11
+    el11 = float(B * T11 * F11)
+    fft11 = 2.5 * n11 * math.log2(n11) * B * T11
+    bank11 = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=n11).mel_bank
+    nnz11 = int((bank11 != 0).sum().item())
+    kw_a11 = dict(kw, mel_bank=bank11, taps=taps11)
+    require(spectral.melspec_route(n_fft_g, "melspec") == spectral.melspec_route(n_fft_y, "melspec") == "smooth"
+            and spectral.melspec_route(n11, "melspec") == "other",
+            "phase 5: A and B must be smooth at 768 and 896 (its radix-7 instance) and factored at 1408")
+
+    def lib_forward_11():
+        S = torch.stft(mono, n11, hop11, window=w11, center=True, pad_mode="reflect", return_complex=True)
+        return (torch.log1p(torch.matmul(S.abs().transpose(-2, -1), bank11)) - off) / scl
+
+    def lib_stats_11():
+        v = torch.log1p(torch.stft(mono, n11, hop11, window=w11, center=True, pad_mode="reflect",
+                                   return_complex=True).abs())
+        return v.sum(), (v * v).sum(), v.min(), v.max()
+
+    factored11 = (4.0 * B * (T11 + ov11 - 1) * hop11 * F11 + 8.0 * el11 * ov11
+                  + 4.0 * el11 * (2 * len(taps11) - 1))       # the factored design's front end at 1408/352
+    seven_fwd, seven_stats = melspec_smooth_instance(_build.kernel_resources(), seven=True)
 
     def lib_forward_y():
         S = torch.stft(mono, n_fft_y, hop_y, window=w_y, center=True, pad_mode="reflect", return_complex=True)
@@ -5793,16 +5960,27 @@ def main() -> int:
                             fft_g + B * Tg * (n_fft_g + 7.0 * Fg + 2.0 * nnz_g)),
              ceiling=ceiling_of(smooth_design_flops(n_fft_g, B * Tg) + 7.0 * el_g + 2.0 * B * Tg * nnz_g),
              resources=smooth_fwd),
-        dict(key="A_factored", name="fused_melspec_factored", front_end="factored",
-             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+        dict(key="A_smooth7", name="fused_melspec_smooth7", front_end="smooth",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:732",
-             launches=counts["fused_melspec:factored"],
+             launches=counts["fused_melspec:smooth7"],
              run=lambda: spectral.fused_melspec(mono, n_fft_y, hop_y, **kw_ay),
              plain=lambda: spectral.fused_melspec_reference(mono, n_fft_y, hop_y, **kw_ay),
              library=lib_forward_y,
              bound=bound_of(4.0 * B * L + 4.0 * el_y + 4.0 * Fy * Fy,
                             fft_y + B * Ty * (n_fft_y + 7.0 * Fy + 2.0 * nnz_y)),
-             ceiling=ceiling_of(factored_y + 3.0 * el_y + 2.0 * B * Ty * nnz_y)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_y, B * Ty) + 7.0 * el_y + 2.0 * B * Ty * nnz_y),
+             resources=seven_fwd),
+        dict(key="A_factored", name="fused_melspec_factored", front_end="factored",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:732",
+             launches=counts["fused_melspec:factored"],
+             run=lambda: spectral.fused_melspec(mono, n11, hop11, **kw_a11),
+             plain=lambda: spectral.fused_melspec_reference(mono, n11, hop11, **kw_a11),
+             library=lib_forward_11,
+             bound=bound_of(4.0 * B * L + 4.0 * el11 + 4.0 * F11 * F11,
+                            fft11 + B * T11 * (n11 + 7.0 * F11 + 2.0 * nnz11)),
+             ceiling=ceiling_of(factored11 + 3.0 * el11 + 2.0 * B * T11 * nnz11)),
         dict(key="B", name="fused_melspec_stats", front_end="fft",
              source="acids_transforms_tpu_torch/csrc/spectral.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:903",
@@ -5821,15 +5999,24 @@ def main() -> int:
              library=lib_stats_g,
              bound=bound_of(4.0 * B * L, fft_g + B * Tg * (n_fft_g + 9.0 * Fg)),
              ceiling=ceiling_of(smooth_design_flops(n_fft_g, B * Tg) + 9.0 * el_g), resources=smooth_stats),
-        dict(key="B_factored", name="fused_melspec_stats_factored", front_end="factored",
-             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+        dict(key="B_smooth7", name="fused_melspec_stats_smooth7", front_end="smooth",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:903",
-             launches=counts["fused_melspec_stats:factored"],
+             launches=counts["fused_melspec_stats:smooth7"],
              run=lambda: spectral.fused_melspec_stats(mono, n_fft_y, hop_y, "log1p", taps=taps_y),
              plain=lambda: spectral.fused_melspec_stats_reference(mono, n_fft_y, hop_y, "log1p", taps=taps_y),
              library=lib_stats_y,
              bound=bound_of(4.0 * B * L, fft_y + B * Ty * (n_fft_y + 9.0 * Fy)),
-             ceiling=ceiling_of(factored_y + 8.0 * el_y)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_y, B * Ty) + 9.0 * el_y), resources=seven_stats),
+        dict(key="B_factored", name="fused_melspec_stats_factored", front_end="factored",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:903",
+             launches=counts["fused_melspec_stats:factored"],
+             run=lambda: spectral.fused_melspec_stats(mono, n11, hop11, "log1p", taps=taps11),
+             plain=lambda: spectral.fused_melspec_stats_reference(mono, n11, hop11, "log1p", taps=taps11),
+             library=lib_stats_11,
+             bound=bound_of(4.0 * B * L, fft11 + B * T11 * (n11 + 9.0 * F11)),
+             ceiling=ceiling_of(factored11 + 8.0 * el11)),
         dict(key="C", name="gl_momentum_step", front_end="fft",
              source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:294",
@@ -5887,9 +6074,9 @@ def main() -> int:
     # take the FFT route (fft_smem.cuh:frames_rfft): its own fp32 ceiling is
     # the operations this design does (fft_design_flops), not a bound.  Their
     # smooth route (768/256 = 2^8 3, on the same clips) does
-    # smooth_design_flops; their product route (896/224 = 2^7 7) the full
-    # n_fft-long product per frame, `overlap` times the chunk products.  Both
-    # counted in phase 4h.
+    # smooth_design_flops, its radix-7 instance (896/224 = 2^7 7) likewise;
+    # their product route (1408/352 = 2^7 11) the full n_fft-long product per
+    # frame, `overlap` times the chunk products.  All counted in phase 4h.
     kw_e = dict(mel_bank=None, offset=dgt_fit[2].norm.offset, scale=dgt_fit[2].norm.scale,
                 contrast="log1p", taps=None, window=dgt_f.window)
     e_need = fft_flops + B * Tn * (N_FFT + 7.0 * F)
@@ -5994,6 +6181,18 @@ def main() -> int:
     kw_yd = dict(kw_e, window=w_yd)
     e_need_y = fft_y + B * Ty * (n_fft_y + 7.0 * Fy)
     fullk_y = 4.0 * B * Ty * n_fft_y * Fy                    # cos and sin products of every frame
+    w11d = gaussian_dgt_window(n11, device=dev)
+    kw_e11 = dict(kw_e, window=w11d)
+    e_need11 = fft11 + B * T11 * (n11 + 7.0 * F11)
+    fullk11 = 4.0 * B * T11 * n11 * F11
+
+    def lib_dgt_spec_11(x):
+        return torch.stft(x, n11, hop11, window=w11d, center=True, pad_mode="reflect",
+                          return_complex=True).abs().transpose(-2, -1)
+
+    def lib_dgt_stats_11():
+        v = torch.log1p(lib_dgt_spec_11(mono))
+        return v.sum(), (v * v).sum(), v.min(), v.max()
 
     def lib_dgt_spec_y(x):
         return torch.stft(x, n_fft_y, hop_y, window=w_yd, center=True, pad_mode="reflect",
@@ -6039,25 +6238,42 @@ def main() -> int:
              library=lib_dgt_stats_p,
              bound=bound_of(4.0 * B * L, e_need_p + 2.0 * el_p),
              ceiling=ceiling_of(smooth_design_flops(n_fft_p, B * Tp) + 9.0 * el_p), resources=smooth_stats),
-        dict(key="E_product", name="fused_melspec_fullk_product", front_end="product",
-             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+        dict(key="E_smooth7", name="fused_melspec_fullk_smooth7", front_end="smooth", source=spectral_src,
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:715",
-             launches=counts["fused_melspec_fullk:product"],
+             launches=counts["fused_melspec_fullk:smooth7"],
              run=lambda: spectral.fused_melspec(mono, n_fft_y, hop_y, **kw_yd),
              plain=lambda: spectral.fused_melspec_reference(mono, n_fft_y, hop_y, **kw_yd),
              library=lambda: (torch.log1p(lib_dgt_spec_y(mono)) - kw_e["offset"]) / kw_e["scale"],
              bound=bound_of(4.0 * B * L + 4.0 * el_y, e_need_y),
-             ceiling=ceiling_of(fullk_y + 7.0 * el_y)),
-        dict(key="F_product", name="fused_melspec_stats_fullk_product", front_end="product",
-             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+             ceiling=ceiling_of(smooth_design_flops(n_fft_y, B * Ty) + 7.0 * el_y), resources=seven_fwd),
+        dict(key="F_smooth7", name="fused_melspec_stats_fullk_smooth7", front_end="smooth", source=spectral_src,
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:888",
-             launches=counts["fused_melspec_stats_fullk:product"],
+             launches=counts["fused_melspec_stats_fullk:smooth7"],
              run=lambda: spectral.fused_melspec_stats(mono, n_fft_y, hop_y, "log1p", taps=None, window=w_yd),
              plain=lambda: spectral.fused_melspec_stats_reference(mono, n_fft_y, hop_y, "log1p", taps=None,
                                                                   window=w_yd),
              library=lib_dgt_stats_y,
              bound=bound_of(4.0 * B * L, e_need_y + 2.0 * el_y),
-             ceiling=ceiling_of(fullk_y + 9.0 * el_y)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_y, B * Ty) + 9.0 * el_y), resources=seven_stats),
+        dict(key="E_product", name="fused_melspec_fullk_product", front_end="product",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:715",
+             launches=counts["fused_melspec_fullk:product"],
+             run=lambda: spectral.fused_melspec(mono, n11, hop11, **kw_e11),
+             plain=lambda: spectral.fused_melspec_reference(mono, n11, hop11, **kw_e11),
+             library=lambda: (torch.log1p(lib_dgt_spec_11(mono)) - kw_e["offset"]) / kw_e["scale"],
+             bound=bound_of(4.0 * B * L + 4.0 * el11, e_need11),
+             ceiling=ceiling_of(fullk11 + 7.0 * el11)),
+        dict(key="F_product", name="fused_melspec_stats_fullk_product", front_end="product",
+             source="acids_transforms_tpu_torch/csrc/spectral.cu",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:888",
+             launches=counts["fused_melspec_stats_fullk:product"],
+             run=lambda: spectral.fused_melspec_stats(mono, n11, hop11, "log1p", taps=None, window=w11d),
+             plain=lambda: spectral.fused_melspec_stats_reference(mono, n11, hop11, "log1p", taps=None,
+                                                                  window=w11d),
+             library=lib_dgt_stats_11,
+             bound=bound_of(4.0 * B * L, e_need11 + 2.0 * el11),
+             ceiling=ceiling_of(fullk11 + 9.0 * el11)),
         # the recurrence has no single PyTorch call to stand beside it
         dict(key="K_phases", name="pghi_phases", source=pghi_src, replaces=pghi_tpu,
              launches=counts["pghi_phases"],

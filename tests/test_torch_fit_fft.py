@@ -100,9 +100,9 @@ def test_fit_through_the_fft_route_matches_the_eager_cascade():
 def test_route_rule_per_launch_kind():
     """With taps the statistics take the FFT route wherever ``fft_covers``,
     with F's plan, and so does the forward (A), with E's; 768/192 (2^8 3)
-    takes the smooth route, F's and E's plan there, and 896/224 (2^7 7)
-    stays factored for both, as its plain version does; no launch is counted
-    on the CPU."""
+    and 896/224 (2^7 7, the radix-7 instance) take the smooth route, F's and
+    E's plan there, and 1408/352 (2^7 11) stays factored for both, as its
+    plain version does; no launch is counted on the CPU."""
     taps = TAPS["hann"]
     for n_fft in (64, 128, 256, 512, 1024, 2048, 4096):
         hop = max(32, n_fft // 4)
@@ -111,7 +111,8 @@ def test_route_rule_per_launch_kind():
         assert pk._kernel_plan(n_fft, hop, None)[1] > 0
     assert pk._kernel_plan(1024, 256, taps) == (16, 4)
     assert pk._kernel_plan(768, 192, taps) == pk._kernel_plan(768, 192, None) and pk._kernel_plan(768, 192, taps)[1]
-    assert pk._kernel_plan(896, 224, taps) == (pk._pick_tile(224, 4, 449), 0)
+    assert pk._kernel_plan(896, 224, taps) == pk._kernel_plan(896, 224, None) and pk._kernel_plan(896, 224, taps)[1]
+    assert pk._kernel_plan(1408, 352, taps) == (pk._pick_tile(352, 4, 705), 0)
     x = torch.as_tensor(make_audio(45, batch=2, n=6000)[:, 0])
     pk.reset_launches()
     fft = pk.fused_melspec_stats_reference(x, 512, 128, "log1p", taps=taps)
@@ -121,9 +122,9 @@ def test_route_rule_per_launch_kind():
     assert torch.equal(re, re_w) and torch.equal(im, im_w)
     fac = pk._factored_spectrum(x, 512, 128, True, taps)
     assert not torch.equal(fac[0], re)
-    # 896/224: the factored statistics
-    st = pk.fused_melspec_stats(x, 896, 224, "log1p", taps=taps)
-    re, im = pk._factored_spectrum(x, 896, 224, True, taps)
+    # 1408/352: the factored statistics
+    st = pk.fused_melspec_stats(x, 1408, 352, "log1p", taps=taps)
+    re, im = pk._factored_spectrum(x, 1408, 352, True, taps)
     v = torch.log1p(torch.sqrt(re * re + im * im)).double()
     assert torch.equal(st["sum"], v.sum()) and float(fft["sum"]) > 0
     assert not any(pk.launches.values()) and not any(pk.routes.values())

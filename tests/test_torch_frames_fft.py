@@ -164,16 +164,16 @@ def test_route_rule_and_coverage():
                        and SP._pick_tile(hop, n_fft // hop, F) is not None)
         if old_melspec:
             tile_t, teams = SP._kernel_plan(n_fft, hop, None)
-            assert (teams > 0) == (fft_covers(n_fft) or fft_covers_smooth(n_fft)), (n_fft, hop)
+            assert (teams > 0) == (fft_covers(n_fft) or fft_covers_smooth7(n_fft)), (n_fft, hop)
             if teams:
                 assert SP._fft_smem_bytes(tile_t, hop, n_fft // hop, F, teams) <= SP.MAX_SMEM
             else:
                 assert tile_t == SP._pick_tile(hop, n_fft // hop, F)
         # with taps (A and B) the FFT route where fft_covers and the smooth
-        # route where fft_covers_smooth, E's and F's plan; the factored front
+        # route where fft_covers_smooth7, E's and F's plan; the factored front
         # end and its tile elsewhere
         if SP.fused_melspec_available(n_fft, hop, (0.5, -0.25)) and SP._pick_tile(hop, n_fft // hop, F):
-            if fft_covers(n_fft) or fft_covers_smooth(n_fft):
+            if fft_covers(n_fft) or fft_covers_smooth7(n_fft):
                 assert SP._kernel_plan(n_fft, hop, (0.5, -0.25)) == SP._kernel_plan(n_fft, hop, None)
             else:
                 assert SP._kernel_plan(n_fft, hop, (0.5, -0.25)) == (SP._pick_tile(hop, n_fft // hop, F), 0)
@@ -184,7 +184,8 @@ def test_route_rule_and_coverage():
     assert PK._encode_plan(1200, 300) == (16, 2) and PK._encode_plan(960, 240)[1] > 0
     assert PK._encode_plan(1408, 352)[1] == 0
     assert PK._encode_plan(1344, 336)[1] > 0
-    assert SP._kernel_plan(768, 256, None)[1] > 0 and SP._kernel_plan(896, 224, None)[1] == 0
+    assert SP._kernel_plan(768, 256, None)[1] > 0 and SP._kernel_plan(896, 224, None)[1] > 0
+    assert SP._kernel_plan(1408, 352, None)[1] == 0
     assert SP._kernel_plan(4096, 1024, None)[0] == 8       # n_fft 4096: a tile of 8 frames
 
 

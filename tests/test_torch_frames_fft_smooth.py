@@ -211,7 +211,8 @@ def test_route_rule():
         assert PK._decode_plan(n, hop)[1] > 0 and PK._decode_plan(n, hop, PK.PROJECT_SYN_ROWS)[1] > 0
         assert PK._polish_plan(n, hop, 20) is not None
     assert SP._kernel_plan(768, 192, None)[1] > 0 and SP._kernel_plan(1920, 480, None)[1] > 0      # E and F
-    assert SP._kernel_plan(896, 224, None)[1] == 0                      # 2^7 7: E and F's product route
+    assert SP._kernel_plan(896, 224, None)[1] > 0                       # 2^7 7: E and F's radix-7 instance
+    assert SP._kernel_plan(1408, 352, None)[1] == 0                     # 2^7 11: E and F's product route
     assert PK._encode_plan(1200, 300) == (16, 2) and PK._roundtrip_plan(1200, 300) == (16, 2)
     # the plans a sweep of every plan on the H100 found fastest (frames_fft.class_plan_smooth)
     assert PK._roundtrip_plan(960, 240) == (56, 4) and PK._roundtrip_plan(1920, 480) == (24, 2)

@@ -198,8 +198,10 @@ def test_fft_routes_no_further_from_the_oracle_than_the_factored_route(audio, n_
 def test_route_rules():
     """A, B, G and H take the FFT route with taps at every power of two (the
     plans of E, F, G and H full-K); at 768/192 (no power of two) A, B, G
-    and H take their full-K instances' smooth route, and at 896/224 (2^7 7)
-    they are factored; no launch is counted on a CPU tensor."""
+    and H take their full-K instances' smooth route; at 896/224 (2^7 7) G
+    and H are factored and A and B take E's and F's radix-7 instance, at
+    1408/352 (2^7 11) A and B are factored; no launch is counted on a CPU
+    tensor."""
     taps = TAPS["hann"]
     for n_fft in (64, 128, 256, 512, 1024, 2048, 4096):
         hop = max(32, n_fft // 4)
@@ -215,7 +217,8 @@ def test_route_rules():
                 assert pk._repr_plan(n_fft, hop, taps, False, second, mel)[1] > 0
     assert not fft_covers(768)
     assert pk._kernel_plan(768, 192, taps) == pk._kernel_plan(768, 192, None) and pk._kernel_plan(768, 192, taps)[1]
-    assert pk._kernel_plan(896, 224, taps) == (pk._pick_tile(224, 4, 449), 0)
+    assert pk._kernel_plan(1408, 352, taps) == (pk._pick_tile(352, 4, 705), 0)
+    assert pk._kernel_plan(896, 224, taps) == pk._kernel_plan(896, 224, None) and pk._kernel_plan(896, 224, taps)[1]
     for stats in (False, True):
         assert pk._repr_plan(896, 224, taps, stats, "phase", not stats) == (pk._pick_repr_tile(224, 4, 449), 0)
         assert pk._repr_plan(768, 192, taps, stats, "phase", not stats) == pk._repr_plan(
@@ -230,10 +233,11 @@ def test_route_rules():
     g = pk.fused_spectral_repr(x, 512, 128, "imag", taps=taps)
     re, im = pk._fullk_spectrum(x, 512, 128, True, w)
     assert torch.equal(g[0], re) and torch.equal(g[1], pk._pin_nyquist(im))
-    # 896/224: the factored A, G and H
-    a = pk.fused_melspec(x, 896, 224, None, 0.0, 1.0, "none", taps=taps)
-    re, im = pk._factored_spectrum(x, 896, 224, True, taps)
+    # 1408/352: the factored A; 896/224: the factored G and H
+    a = pk.fused_melspec(x, 1408, 352, None, 0.0, 1.0, "none", taps=taps)
+    re, im = pk._factored_spectrum(x, 1408, 352, True, taps)
     assert torch.equal(a, torch.sqrt(re * re + im * im))
+    re, im = pk._factored_spectrum(x, 896, 224, True, taps)
     h = pk.fused_repr_stats(x, 896, 224, "imag", taps=taps)
     assert torch.equal(h["ch1"]["max"], re.max())
     g = pk.fused_spectral_repr(x, 896, 224, "imag", taps=taps)
@@ -367,7 +371,7 @@ def test_g_fft_route_no_further_from_the_oracle_than_the_factored_route(audio, m
     x = torch.as_tensor(audio)
     kw = dict(mel_bank=bank, contrast="none", weighted=weighted, taps=taps)
     y_fft = [t2n(a).astype(np.float64) for a in pk.fused_spectral_repr_reference(x, n_fft, hop, second, **kw)]
-    monkeypatch.setattr(pk, "_spectrum", lambda x_, n, h, c, t, w: pk._factored_spectrum(x_, n, h, c, t))
+    monkeypatch.setattr(pk, "_spectrum", lambda x_, n, h, c, t, w, *family: pk._factored_spectrum(x_, n, h, c, t))
     y_fac = [t2n(a).astype(np.float64) for a in pk.fused_spectral_repr_reference(x, n_fft, hop, second, **kw)]
     S = oracle_spectrum(audio, taps, n_fft, hop)
     if second == "imag":

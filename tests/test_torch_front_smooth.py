@@ -84,7 +84,7 @@ def assert_stats(got, want, tol):
 def test_e_f_plain_versions_vs_pallas_and_oracle(audio, n_fft, hop, wname):
     """|X| (no contrast, no affine: the front end itself) and the statistics
     of log1p |X|, full-K under the DGT's gaussian and a hann window."""
-    assert pk.melspec_route(n_fft) == "smooth" and pk._kernel_plan(n_fft, hop, None)[1] > 0
+    assert pk.melspec_route(n_fft, "melspec") == "smooth" and pk._kernel_plan(n_fft, hop, None)[1] > 0
     w = window_of(wname, n_fft)
     x = torch.as_tensor(audio)
     yp = t2n(pk.fused_melspec(x, n_fft, hop, None, 0.0, 1.0, "none", window=w)).astype(np.float64)
@@ -184,9 +184,10 @@ def test_a_b_are_e_f_under_the_taps_window(audio, n_fft, hop, wname):
 
 
 def test_route_rules_and_plans():
-    """The smooth route at every even 5-smooth shape the kernels take, 896/224
-    on the product and factored front ends (G and H's too; at 768 G and H
-    plan the smooth route),
+    """The smooth route at every even 5-smooth shape the kernels take, 1408/352
+    (2^7 11) on the product and factored front ends, 896/224 on the smooth
+    route's radix-7 instance (G and H keep their product and factored front
+    ends there; at 768 G and H plan the smooth route),
     the plan rule's picks (the fastest of a sweep of every plan on an H100,
     or within 10 % of it: 1920/480), and no launch counted on a CPU
     tensor."""
@@ -204,8 +205,10 @@ def test_route_rules_and_plans():
     assert pk._kernel_plan(640, 160, None) == (32, 4) and pk._kernel_plan(1536, 384, None) == (8, 2)
     assert pk._kernel_plan(1920, 480, None) == (16, 2)
     for taps in (None, TAPS["hann"]):
-        assert pk._kernel_plan(896, 224, taps) == (pk._pick_tile(224, 4, 449), 0)
-    assert pk.melspec_route(896) == "other" and pk.melspec_route(1024) == "fft"
+        assert pk._kernel_plan(1408, 352, taps) == (pk._pick_tile(352, 4, 705), 0)
+        assert pk._kernel_plan(896, 224, taps) == pk._pick_smooth_plan(896, 224) == (16, 4)
+    assert pk.melspec_route(1408, "melspec") == "other" and pk.melspec_route(1024, "melspec") == "fft"
+    assert pk.melspec_route(896, "melspec") == "smooth"
     for stats in (False, True):
         for second in pk.SECONDS:
             assert pk._repr_plan(896, 224, TAPS["hann"], stats, second, False) == (pk._pick_repr_tile(224, 4, 449), 0)

@@ -47,19 +47,21 @@ def test_table_loads_and_values_measured():
                                "pghi_gl": None, "random": None}
     assert all(regions.batch_cap(m) is None for m in s["batch_caps"])
     assert t["fuse_fit"]["fullk_n_fft_max"] == 4096 == regions.fit_fullk_max_n_fft()
-    # the magnitude's fit (F) won on the smooth route at 768/192 (0.26x) and
-    # lost on the product route at 896/224 (1.14x); PolarIF's (H full-K) won
-    # on its smooth route at 768/192 (0.24x) and its product route at
-    # 896/224 (0.56x)
+    # the magnitude's fit (F) won on the smooth route at 768/192 (0.21x) and
+    # on its radix-7 instance at 896/224 (0.21x), and lost on the product
+    # route at 1408/352 (1.60x); PolarIF's (H full-K) won on its smooth route
+    # at 768/192 (0.20x) and its product route at 896/224 (0.55x)
     assert t["fuse_fit"]["melspec_fullk_routes"] == ["fft", "smooth"]
     assert t["fuse_fit"]["repr_fullk_routes"] == ["fft", "smooth", "product"]
     ff = t["fuse_forward"]
     # (region, n_fft_min, routes): at 64/32 the kernel lost for the
-    # cosine-sum magnitude (1.05x) and Polar (1.08x, 1.12x); MFCC won there
-    # this time (0.98x, 1.05x two sweeps before: run noise near 1); the
-    # full-K magnitude's product route lost at 896/224 (1.40x), the full-K
-    # Polar's too (1.20x); every pattern's smooth route won at 768/192
-    # (0.16-0.23x; the representations' since they took it)
+    # cosine-sum magnitude (1.05x) and Polar (1.12x, 1.11x); MFCC won there
+    # (0.98x, 1.05x three sweeps before: run noise near 1); the full-K
+    # magnitude's product route lost at 1408/352 (1.88x), the full-K Polar's
+    # at 896/224 (1.20x); every pattern's smooth route won at 768/192
+    # (0.15-0.24x), the magnitude patterns' radix-7 instance at 896/224
+    # (0.15-0.17x); the cosine-sum magnitude's and MFCC's factored route at
+    # 1408/352 (0.56x, 0.66x)
     smooth, prod = ["fft", "smooth", "factored"], ["fft", "smooth", "product"]
     for r, lo, routes in ((ff["melspec_taps"], 128, smooth), (ff["melspec_fullk"], 64, ["fft", "smooth"]),
                           (ff["repr_if"]["taps"], 64, smooth), (ff["repr_if"]["fullk"], 64, prod),
@@ -67,7 +69,7 @@ def test_table_loads_and_values_measured():
                           (ff["repr_phase_imag"]["fullk"], 128, ["fft", "smooth"]), (ff["mfcc"], 64, smooth)):
         assert set(r) == {"_why", "n_fft_min", "n_fft_max", "routes"}   # no overlap key
         assert (r["n_fft_min"], r["n_fft_max"], r["routes"]) == (lo, 4096, routes)
-        assert "896/224" in r["_why"]
+        assert "896/224" in r["_why"] and "1408/352" in r["_why"]
 
 
 def _numbers(node, path=()):
@@ -228,10 +230,12 @@ def test_fuse_region_helpers_match_table():
     assert regions.repr_region_ok(64, 32, True, "if") and not regions.repr_region_ok(64, 32, True, "phase")
     assert regions.mfcc_region_ok(64, 32) and regions.mfcc_region_ok(128, 32)
     # full-K magnitude: the FFT and smooth routes (its product route lost at
-    # 896: 1.40x; at 768 the smooth route won, 0.16x)
+    # 1408: 1.88x; at 768 the smooth route won, 0.16x, at 896 its radix-7
+    # instance, 0.17x)
     assert regions.melspec_region_ok(2048, 512, False) and regions.melspec_region_ok(768, 192, False)
-    assert regions.melspec_region_ok(1920, 480, False) and not regions.melspec_region_ok(896, 224, False)
-    assert regions.melspec_region_ok(896, 224, True)                             # A factored: 0.51x
+    assert regions.melspec_region_ok(1920, 480, False) and not regions.melspec_region_ok(1408, 352, False)
+    assert regions.melspec_region_ok(896, 224, False) and regions.melspec_region_ok(896, 224, True)
+    assert regions.melspec_region_ok(1408, 352, True)                            # A factored: 0.56x
     # the representations: the smooth route won at 768 (0.23x), the full-K
     # Polar's product route lost at 896 (1.20x), PolarIF's won (0.90x)
     assert regions.repr_region_ok(768, 192, False, "if") and regions.repr_region_ok(896, 224, False, "if")
@@ -239,9 +243,11 @@ def test_fuse_region_helpers_match_table():
     assert regions.repr_region_ok(1920, 480, False, "phase") and not regions.repr_region_ok(896, 224, False, "phase")
     assert regions.repr_region_ok(512, 128, True, "imag") and regions.repr_region_ok(4096, 1024, False, "imag")
     assert regions.mfcc_region_ok(1024, 256) and regions.mfcc_region_ok(768, 192) and regions.mfcc_region_ok(896, 224)
+    assert regions.mfcc_region_ok(1408, 352)                                     # MFCC factored: 0.66x
     assert not regions.mfcc_region_ok(8192, 2048)
     assert regions.fit_fullk_region_ok(4096) and regions.fit_fullk_region_ok(64)
-    assert regions.fit_fullk_region_ok(768) and not regions.fit_fullk_region_ok(896)
+    assert regions.fit_fullk_region_ok(768) and regions.fit_fullk_region_ok(896)
+    assert not regions.fit_fullk_region_ok(1408)
     assert not regions.fit_fullk_region_ok(8192)
     assert regions.fit_fullk_region_ok(768, two_channel=True) and regions.fit_fullk_region_ok(896, two_channel=True)
 
@@ -265,7 +271,10 @@ def _fuse_chains(n_fft, hop):
 @pytest.mark.parametrize("n_fft,hop,expected", [
     (1024, 256, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_fullk", "phase_taps", "mfcc"}),
     (768, 192, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_fullk", "phase_taps", "mfcc"}),
-    (896, 224, {"melspec_taps", "if_fullk", "phase_taps", "mfcc"}),
+    (896, 224, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_taps", "mfcc"}),
+    # PolarIF full-K: its region's product point is 896/224 (0.90x); at
+    # 1408/352 the sweep read 1.24x, a shape its rule does not measure
+    (1408, 352, {"melspec_taps", "if_fullk", "phase_taps", "mfcc"}),
     (2048, 256, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_fullk", "phase_taps", "mfcc"}),
     (128, 32, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_fullk", "phase_taps", "mfcc"}),
     (64, 32, {"melspec_fullk", "if_fullk", "mfcc"}),      # MFCC 0.96x at 64/32 (1.05x in the sweep before)
@@ -299,15 +308,16 @@ def test_fuse_auto_consults_regions(monkeypatch):
 
 def test_fit_fullk_region_consults_regions():
     """A gaussian chain fits on the kernel up to 4096 on the FFT route and
-    the smooth route (768: the magnitude 0.26x, PolarIF 0.24x); at 896 (the
-    magnitude's product route lost, 1.14x) and 8192 ``auto`` runs
-    ``chain.fit``; PolarIF's fit (H full-K) takes its product route at 896
-    (0.56x); a window with taps fits on the kernel wherever it is
-    available."""
+    the smooth route (768: the magnitude 0.21x, PolarIF 0.20x; 896, the
+    magnitude's radix-7 instance: 0.21x); at 1408 (the magnitude's product
+    route lost, 1.60x) and 8192 ``auto`` runs ``chain.fit``; PolarIF's fit
+    (H full-K) takes its product route at 896 (0.55x); a window with taps
+    fits on the kernel wherever it is available."""
     assert fuse._fit_region(PT.DGT(n_fft=2048, hop_length=512, device="cpu"))
     assert fuse._fit_region(PT.DGT(n_fft=768, hop_length=192, device="cpu"))
     assert fuse._fit_region(PT.DGT(n_fft=768, hop_length=192, device="cpu"), two_channel=True)
-    assert not fuse._fit_region(PT.DGT(n_fft=896, hop_length=224, device="cpu"))
+    assert fuse._fit_region(PT.DGT(n_fft=896, hop_length=224, device="cpu"))
+    assert not fuse._fit_region(PT.DGT(n_fft=1408, hop_length=352, device="cpu"))
     assert fuse._fit_region(PT.DGT(n_fft=896, hop_length=224, device="cpu"), two_channel=True)
     assert not fuse._fit_region(PT.DGT(n_fft=8192, hop_length=2048, device="cpu"))
     assert fuse._fit_region(PT.STFT(n_fft=768, hop_length=192, device="cpu"))
@@ -320,7 +330,7 @@ def _sweep_rows(shapes, **ratios):
     out = {}
     for n_fft, hop in shapes:
         key = "%d/%d" % (n_fft, hop)
-        r = ratios.get("s%d" % n_fft if n_fft in (768, 896) else "", 0.5)
+        r = ratios.get("s%d" % n_fft if n_fft in (768, 896, 1408) else "", 0.5)
         out[key] = {"kernel_ms": r, "eager_ms": 1.0, "ratio": r}
     return out
 
@@ -334,38 +344,45 @@ def _with_table(monkeypatch, fuse_forward=None, fuse_fit=None):
 
 
 def test_region_admits_a_route_only_where_a_point_of_it_won(monkeypatch):
-    """768/192 measures the smooth route of the log-mel and MFCC kernels,
-    896/224 their factored / product front end: a sweep where 768 wins and
-    896 loses admits 768 and refuses 896, and the other way round."""
+    """768/192 and 896/224 measure the smooth route of the log-mel and MFCC
+    kernels (896 on its radix-7 instance), 1408/352 their factored / product
+    front end: a sweep where both smooth points win and 1408 loses admits 768
+    and 896 and refuses 1408, and the other way round; a sweep where 896
+    alone of them loses refuses the smooth route."""
     from acids_transforms_tpu_torch.tools import sweep_regions as tool
 
-    win768 = _sweep_rows(tool.SHAPES, s768=0.6, s896=1.4)
-    win896 = _sweep_rows(tool.SHAPES, s768=1.3, s896=0.8)
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+    win_smooth = _sweep_rows(tool.SHAPES, s768=0.6, s896=0.7, s1408=1.4)
+    win_other = _sweep_rows(tool.SHAPES, s768=1.3, s896=1.1, s1408=0.8)
+    lost896 = _sweep_rows(tool.SHAPES, s768=0.6, s896=1.2, s1408=0.8)
     kinds = ("melspec_taps", "melspec_fullk", "mfcc")
-    a = {k: tool.shape_region(win768, "NVIDIA H100 80GB HBM3, 700.00 W", k, k) for k in kinds}
+    a = {k: tool.shape_region(win_smooth, card, k, k) for k in kinds}
     assert a["melspec_fullk"]["routes"] == ["fft", "smooth"] and a["melspec_taps"]["routes"] == ["fft", "smooth"]
-    assert "896/224" in a["mfcc"]["_why"] and a["mfcc"]["routes"] == ["fft", "smooth"]
+    assert "1408/352" in a["mfcc"]["_why"] and a["mfcc"]["routes"] == ["fft", "smooth"]
     _with_table(monkeypatch, fuse_forward=a)
     for taps in (False, True):
         assert regions.melspec_region_ok(768, 192, taps) and regions.melspec_region_ok(768, 256, taps)
         assert regions.melspec_region_ok(640, 160, taps) and regions.melspec_region_ok(1024, 256, taps)
-        assert not regions.melspec_region_ok(896, 224, taps)
-    assert regions.mfcc_region_ok(768, 192) and not regions.mfcc_region_ok(896, 224)
-    chains = {n: _fuse_chains(n, n // 4) for n in (768, 896)}
-    assert fuse._kernel_preferred(chains[768]["melspec_fullk"]) and fuse._kernel_preferred(chains[768]["mfcc"])
-    assert not fuse._kernel_preferred(chains[896]["melspec_fullk"])
-    b = {k: tool.shape_region(win896, "NVIDIA H100 80GB HBM3, 700.00 W", k, k) for k in kinds}
+        assert regions.melspec_region_ok(896, 224, taps) and not regions.melspec_region_ok(1408, 352, taps)
+    assert regions.mfcc_region_ok(896, 224) and not regions.mfcc_region_ok(1408, 352)
+    chains = {n: _fuse_chains(n, n // 4) for n in (768, 896, 1408)}
+    assert fuse._kernel_preferred(chains[768]["melspec_fullk"]) and fuse._kernel_preferred(chains[896]["mfcc"])
+    assert not fuse._kernel_preferred(chains[1408]["melspec_fullk"])
+    b = {k: tool.shape_region(win_other, card, k, k) for k in kinds}
     assert b["melspec_fullk"]["routes"] == ["fft", "product"] and b["melspec_taps"]["routes"] == ["fft", "factored"]
     _with_table(monkeypatch, fuse_forward=b)
     for taps in (False, True):
-        assert not regions.melspec_region_ok(768, 192, taps) and regions.melspec_region_ok(896, 224, taps)
+        assert not regions.melspec_region_ok(768, 192, taps) and not regions.melspec_region_ok(896, 224, taps)
+        assert regions.melspec_region_ok(1408, 352, taps)
+    c = {k: tool.shape_region(lost896, card, k, k) for k in kinds}
+    assert c["melspec_taps"]["routes"] == ["fft", "factored"] and c["mfcc"]["routes"] == ["fft", "factored"]
 
 
 def test_repr_regions_read_their_own_768_point(monkeypatch):
     """G and H take the smooth route at 768 as the log-mel kernels do: 768/192
-    measures it and 896/224 their factored / product front end, each route
-    admitted only where its own point won; a representation region reads
-    its own sweep, never the log-mel region's."""
+    measures it and 896/224 their factored / product front end (they have no
+    radix-7 instance), each route admitted only where its own point won; a
+    representation region reads its own sweep, never the log-mel region's."""
     from acids_transforms_tpu_torch.tools import sweep_regions as tool
 
     card = "NVIDIA H100 80GB HBM3, 700.00 W"
@@ -374,10 +391,12 @@ def test_repr_regions_read_their_own_768_point(monkeypatch):
     assert tool.shape_region(one, card, "w", "repr_if_fullk")["routes"] == ["fft", "smooth"]
     assert tool.shape_region(other, card, "w", "repr_if_fullk")["routes"] == ["fft", "product"]
     assert tool.shape_region(other, card, "w", "repr_phase_taps")["routes"] == ["fft", "factored"]
-    assert regions.kernel_route(896, True) == "factored" and regions.kernel_route(896, False) == "product"
-    assert regions.kernel_route(768, False) == "smooth" and regions.kernel_route(768, True) == "smooth"
+    assert regions.kernel_route(896, True, "repr") == "factored"
+    assert regions.kernel_route(896, False, "repr") == "product"
+    assert regions.kernel_route(768, False, "repr") == "smooth" and regions.kernel_route(768, True, "repr") == "smooth"
+    mag = _sweep_rows(tool.SHAPES, s768=0.6, s896=0.6, s1408=1.4)
     _with_table(monkeypatch, fuse_forward={
-        "melspec_fullk": tool.shape_region(one, card, "w", "melspec_fullk"),
+        "melspec_fullk": tool.shape_region(mag, card, "w", "melspec_fullk"),
         "repr_if": {"taps": tool.shape_region(other, card, "w", "repr_if_taps"),
                     "fullk": tool.shape_region(other, card, "w", "repr_if_fullk")}})
     assert regions.melspec_region_ok(768, 256, False)
@@ -387,19 +406,21 @@ def test_repr_regions_read_their_own_768_point(monkeypatch):
 
 def test_fit_region_follows_the_route_rule(monkeypatch):
     """The full-K fit admits a route per family by the same rule, each from
-    its own points: F (the magnitude) the smooth route where its 768 point
-    won, H full-K the smooth route where its own 768 point won and the
-    product route where its 896 point did (here the other way round)."""
+    its own points: F (the magnitude) the smooth route where its 768 and 896
+    points won and the product route where its 1408 point did, H full-K the
+    smooth route where its own 768 point won and the product route where its
+    896 point did (here the other way round)."""
     from acids_transforms_tpu_torch.tools import sweep_regions as tool
 
-    fit = {"fit_melspec_fullk": _sweep_rows(tool.FIT_SHAPES, s768=0.6, s896=1.4),
+    fit = {"fit_melspec_fullk": _sweep_rows(tool.FIT_SHAPES, s768=0.6, s896=0.7, s1408=1.4),
            "fit_repr_if_fullk": _sweep_rows(tool.FIT_SHAPES, s768=1.2, s896=0.6)}
     sec = tool.fit_section(fit, "NVIDIA H100 80GB HBM3, 700.00 W")
     assert sec["fullk_n_fft_max"] == 4096
     assert sec["melspec_fullk_routes"] == ["fft", "smooth"] and sec["repr_fullk_routes"] == ["fft", "product"]
     _with_table(monkeypatch, fuse_fit=sec)
     assert regions.fit_fullk_region_ok(768) and regions.fit_fullk_region_ok(1920)
-    assert not regions.fit_fullk_region_ok(896) and not regions.fit_fullk_region_ok(8192)
+    assert regions.fit_fullk_region_ok(896) and not regions.fit_fullk_region_ok(1408)
+    assert not regions.fit_fullk_region_ok(8192)
     assert not regions.fit_fullk_region_ok(768, two_channel=True)
     assert regions.fit_fullk_region_ok(1024, two_channel=True) and regions.fit_fullk_region_ok(896, two_channel=True)
     dgt = PT.DGT(n_fft=768, hop_length=192, device="cpu")

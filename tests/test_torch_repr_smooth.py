@@ -92,7 +92,7 @@ def oracle_angle(S, second, weighted):
 def check_vs_jax(x, n_fft, hop, second, weighted, taps):
     """G's channels (no mel, no affine) and H's statistics of the plain
     smooth versions against the JAX kernels: one JAX call of each."""
-    assert pk.melspec_route(n_fft) == "smooth"
+    assert pk.melspec_route(n_fft, "repr") == "smooth"
     for stats in (False, True):
         assert pk._repr_plan(n_fft, hop, taps, stats, second, False)[1] > 0
     w = window_of(n_fft, taps)
@@ -251,7 +251,7 @@ def test_route_rule_and_plans():
             assert pk._repr_plan(896, 224, None, stats, second, mel) == (pk._pick_repr_tile(224, 4, 449), 0)
             assert pk._repr_plan(1024, 256, None, stats, second, mel) == pk._pick_repr_fft_plan(
                 1024, 256, stats, second, mel)
-    assert pk.melspec_route(896) == "other" and pk.melspec_route(1024) == "fft"
+    assert pk.melspec_route(896, "repr") == "other" and pk.melspec_route(1024, "repr") == "fft"
     pk.reset_launches()
     x = torch.as_tensor(make_audio(126, batch=2, n=3000)[:, 0])
     w = torch.as_tensor(window_of(768, None))
@@ -268,8 +268,9 @@ def test_region_rule_reads_the_smooth_point(monkeypatch):
     """The representations' regions read 768/192 as their smooth route's
     point, as the log-mel regions do: a sweep where 768 wins and 896 loses
     admits the smooth route and refuses the product / factored one."""
-    assert regions.kernel_route(768, True) == "smooth" and regions.kernel_route(768, False) == "smooth"
-    assert regions.kernel_route(896, True) == "factored" and regions.kernel_route(896, False) == "product"
+    assert regions.kernel_route(768, True, "repr") == "smooth" and regions.kernel_route(768, False, "repr") == "smooth"
+    assert regions.kernel_route(896, True, "repr") == "factored"
+    assert regions.kernel_route(896, False, "repr") == "product"
     for kind in ("repr_if_fullk", "repr_if_taps", "repr_phase_fullk", "repr_phase_taps", "fit_repr_if_fullk"):
         assert tool.route_points(kind) is tool.SMOOTH_POINTS
     win768 = _sweep_rows(tool.SHAPES, s768=0.6, s896=1.4)

@@ -129,10 +129,10 @@ def test_wrapper_on_a_cpu_tensor_runs_the_plain_version(case):
 
 
 def test_s7_is_the_public_call_where_a_is_factored():
-    """At 896/224 (2^7 7: n_fft neither a power of two nor 5-smooth) A keeps
-    the factored front end: the plain ``s7_full`` is the public call, bit for
-    bit, as ``chip_smoke.py`` holds kernel T against A there."""
-    n_fft, hop = 896, 224
+    """At 1408/352 (2^7 11: n_fft neither a power of two nor 7-smooth) A
+    keeps the factored front end: the plain ``s7_full`` is the public call,
+    bit for bit, as ``chip_smoke.py`` holds kernel T against A there."""
+    n_fft, hop = 1408, 352
     x = torch.as_tensor(make_audio(24, batch=2, n=SR // 4, channels=1)[:, 0])
     taps = taps_for_window(get_window("hann", n_fft))
     bank = torch.as_tensor(square_mel_banks(n_fft, SR)[0])
