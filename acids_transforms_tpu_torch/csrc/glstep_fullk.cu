@@ -1,7 +1,7 @@
 // Full-K momentum Griffin-Lim step for any window, one kernel, for Hopper (sm_90a).
 //
 // Replaces, from the JAX package's ops/pallas/glstep.py:
-//   gl_fullk_kernel, gl_fullk_fft_kernel<false / true>
+//   gl_fullk_kernel, gl_fullk_fft_kernel<false / true[, true]>
 //                    <- _gl_kernel_fullk_momentum  (via _gl_fullk_call /
 //                       make_gl_momentum_step_fullk)
 //
@@ -37,7 +37,11 @@
 //   fits): the same kernel on the mixed-radix frames_irfft<true> /
 //   frames_rfft<true> (radix 5, 3, 4, 2 stages, out of place), twiddles j <
 //   fft_smooth_table(n), wsyn = window / n_fft rounded once from float64;
-// * the product route (gl_fullk_kernel, every other n_fft: 896, 8192, ...)
+//   where n_fft has a factor 7 as well (fft_covers_smooth7: 896, 1344, 1568,
+//   ...) its radix-7 instance, gl_fullk_fft_kernel<true, true>
+//   (frames_irfft<true, true> / frames_rfft<true, true>: a radix-7 stage
+//   first);
+// * the product route (gl_fullk_kernel, every other n_fft: 1408, 8192, ...)
 //   keeps the TPU kernel's two full-length products, 2 * n_fft * F
 //   multiply-adds per frame for the synthesis and as many for the analysis
 //   (2.1 M at n_fft 1024), about 230 flop per byte, so its own ceiling is the
@@ -227,7 +231,10 @@ __host__ __device__ inline size_t gl_fullk_fft_smem_floats(int rows, int hop, in
 
 // J on the FFT route (n_fft = overlap hop a power of two from 64 to 4096), or
 // with kSmooth on the smooth route (fft_covers_smooth(n_fft): the
-// mixed-radix stages, wsyn's 1 / n fold rounded once): a block owns one
+// mixed-radix stages, wsyn's 1 / n fold rounded once; with kSeven where
+// fft_covers_smooth7(n_fft) and n_fft has a factor 7, the radix-7 stage
+// too, carve_fft / fft_stage / frames_irfft / frames_rfft all told so, so
+// the table is fft_smooth_table<true>(n) long): a block owns one
 // batch row and the tile_t frames t0 .. (tile_t a multiple of
 // 2 overlap), its samples the rows = tile_t + overlap chunks c0 = t0 - 1 ...
 // Synthesis: frames_irfft of the frames t0 - overlap .. t0 + tile_t + overlap
@@ -240,25 +247,25 @@ __host__ __device__ inline size_t gl_fullk_fft_smem_floats(int rows, int hop, in
 // (2j, 2j + 1): t0 is even) with the momentum update as its emit.  Every
 // operation is rounded on its own (__fmul_rn, ...), so that the plain version
 // (ops/cuda/glstep.py:gl_momentum_step_fullk_reference) repeats it.
-template <bool kSmooth>
+template <bool kSmooth, bool kSeven = false>
 __global__ void __launch_bounds__(kThreads, 2) gl_fullk_fft_kernel(GlFullkArgs a) {
     extern __shared__ __align__(16) float smem[];
     const int R = a.rows, T = a.T, F = a.F, hop = a.hop, ov = a.overlap;
     const int n = ov * hop;
     float* samples = smem;  // [R][hop]
-    const FftSmem fs = carve_fft<kSmooth>(samples + (size_t)R * hop, n);
+    const FftSmem fs = carve_fft<kSmooth, kSeven>(samples + (size_t)R * hop, n);
     float* wsyn = fs.buf + (size_t)a.teams * fft_buf_floats_of<kSmooth>(n);
     const long long blk = blockIdx.x;
     const long long b = blk / a.n_tiles;
     const int t0 = (int)(blk - b * a.n_tiles) * a.tile_t;
     const int c0 = t0 - 1;  // chunk of sample buffer row 0
     const size_t bofs = (size_t)b * T * F;
-    fft_stage<kSmooth>(a.win, a.fft_tw, fs, n);
+    fft_stage<kSmooth, kSeven>(a.win, a.fft_tw, fs, n);
     for (int i = threadIdx.x; i < n; i += kThreads) wsyn[i] = __ldg(a.wsyn + i);
     for (int i = threadIdx.x; i < R * hop; i += kThreads) samples[i] = 0.0f;
     // local frame r is frame t0 - overlap + r; frames_irfft starts with a barrier
     const int f0 = t0 - ov;
-    frames_irfft<kSmooth>(
+    frames_irfft<kSmooth, kSeven>(
         min(a.tile_t + 2 * ov, T - f0), ov, n, fs, wsyn, a.teams,
         [&](int r, int k, float& re, float& im) {
             const int f = f0 + r;
@@ -280,7 +287,7 @@ __global__ void __launch_bounds__(kThreads, 2) gl_fullk_fft_kernel(GlFullkArgs a
     gl_fullk_boundary(samples, a, R, c0);
     // frames_rfft starts with a barrier
     const float mom = a.mom;
-    frames_rfft<kSmooth>(samples + hop, min(a.tile_t, T - t0), hop, n, fs, a.teams,
+    frames_rfft<kSmooth, kSeven>(samples + hop, min(a.tile_t, T - t0), hop, n, fs, a.teams,
                 [&](int r, int k, float r_re, float r_im) {
                     const size_t o = bofs + (size_t)(t0 + r) * F + k;
                     const float ure = __fsub_rn(r_re, __fmul_rn(mom, __ldg(a.tre + o)));
@@ -319,9 +326,10 @@ long long att_gl_fullk_fft_smem_bytes(int rows, int hop, int n_fft, int teams) {
 // aliasing inputs; env (T + overlap - 1, hop); hop a multiple of 32; T >= 2.
 // teams > 0 selects the FFT route: n_fft = overlap hop a power of two from 64
 // to 4096 (1 <= teams <= 4096 / n_fft), or the smooth route where
-// fft_covers_smooth(n_fft) (1 <= teams <= fft_smooth_max_teams(n_fft)),
-// window and wsyn (n_fft,) (the window, and the window / n_fft: on the smooth
-// route rounded once from float64), fft_tw (2, n_fft) = (cos, -sin)(2 pi j /
+// fft_covers_smooth7(n_fft) (1 <= teams <= fft_smooth_max_teams(n_fft); the
+// radix-7 instance where n_fft has a factor 7), window and wsyn (n_fft,) (the
+// window, and the window / n_fft: on the smooth route rounded once from
+// float64), fft_tw (2, n_fft) = (cos, -sin)(2 pi j /
 // n_fft), tile_t a multiple of 2 overlap and rows = tile_t + overlap; syn, wc, ws,
 // Kp and Ks are not read.  teams == 0 selects the product route: syn
 // (overlap, Kp, hop) with Kp a multiple of 32, Kp >= 2F; wc / ws (overlap *
@@ -340,9 +348,10 @@ int att_gl_fullk_step(const float* mag, const float* are, const float* aim, cons
     const int n_fft = overlap * hop;
     const bool fft = teams > 0;
     const bool smooth = fft && !fft_covers(n_fft);
+    const bool seven = smooth && n_fft % 7 == 0;
     const int max_teams = smooth ? fft_smooth_max_teams(n_fft) : fft_max_teams(n_fft);
     if (B < 1 || T < 2 || overlap < 2 || hop % kKC != 0 || tile_t < 1 ||
-        (fft && ((smooth && !fft_covers_smooth(n_fft)) || F != n_fft / 2 + 1 || teams > max_teams ||
+        (fft && ((smooth && !fft_covers_smooth7(n_fft)) || F != n_fft / 2 + 1 || teams > max_teams ||
                  tile_t % (2 * overlap) != 0 || rows != tile_t + overlap)) ||
         (!fft && (Kp % kSynKC != 0 || Kp < 2 * F || tile_t > kRowGroup || tile_t + overlap > rows ||
                   Ks < kSynKC || Ks > Kp || Ks % kSynKC != 0 || rows < overlap + 2 || rows > 32))) {
@@ -363,14 +372,15 @@ int att_gl_fullk_step(const float* mag, const float* are, const float* aim, cons
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
     if (fft) {
-#define ATT_LAUNCH_GLFKF(SMOOTH)                                            \
-    do {                                                                    \
-        err = gl_fullk_allow_smem(gl_fullk_fft_kernel<SMOOTH>, smem);       \
-        if (err != cudaSuccess) return (int)err;                            \
-        gl_fullk_fft_kernel<SMOOTH><<<grid, kThreads, smem, s>>>(a);        \
+#define ATT_LAUNCH_GLFKF(SMOOTH, SEVEN)                                            \
+    do {                                                                           \
+        err = gl_fullk_allow_smem(gl_fullk_fft_kernel<SMOOTH, SEVEN>, smem);       \
+        if (err != cudaSuccess) return (int)err;                                   \
+        gl_fullk_fft_kernel<SMOOTH, SEVEN><<<grid, kThreads, smem, s>>>(a);        \
     } while (0)
-        if (smooth) ATT_LAUNCH_GLFKF(true);
-        else ATT_LAUNCH_GLFKF(false);
+        if (seven) ATT_LAUNCH_GLFKF(true, true);
+        else if (smooth) ATT_LAUNCH_GLFKF(true, false);
+        else ATT_LAUNCH_GLFKF(false, false);
 #undef ATT_LAUNCH_GLFKF
         return (int)cudaGetLastError();
     }

@@ -9,7 +9,9 @@
 //                              ops/pallas/ola.py:ola_accumulate: the FFT route
 //                              (fft_smem.cuh:frames_irfft) where n_fft is a power of
 //                              two from 64 to 4096, its mixed-radix instance where
-//                              fft_covers_smooth(n_fft), the product route elsewhere
+//                              fft_covers_smooth(n_fft), its radix-7 instance where
+//                              fft_covers_smooth7(n_fft) and n_fft has a factor 7,
+//                              the product route elsewhere
 // pghi_invert_fused is the recurrence followed by the synthesis.  And from
 // ops/pallas/stream_step.py:
 //   rt_pghi_phases_kernel   <- _rt_pghi_phases, the recurrence of the streaming
@@ -123,7 +125,9 @@
 // repeats it.  No basis.  Where fft_covers_smooth(n_fft) (even, 2^a 3^b
 // 5^c, no power of two) the same kernel's kSmooth instance runs frames_irfft's
 // mixed-radix stages (plain version: frames_irfft_reference(..., smooth=True)
-// under irfft_window(..., smooth=True)).
+// under irfft_window(..., smooth=True)), and where fft_covers_smooth7(n_fft)
+// and n_fft has a factor 7 (896, 1344, 1568, ...) its kSeven instance, a
+// radix-7 stage first.
 //
 // Synthesis, product route (pghi_synthesize_kernel, every other n_fft): see
 // synth_ola.cuh.  A block computes mag * (cos, sin)(phase) of its R + overlap
@@ -1154,24 +1158,26 @@ __host__ __device__ inline size_t pghi_synth_fft_smem_floats(int rows, int hop, 
 // frames_irfft's mixed-radix stages, twiddles j < fft_smooth_table(n), wsyn
 // with the 1 / n fold rounded once from float64; plan
 // pghi_kernel._synth_fft_plan), the decode's smooth route with the pairs
-// counted from frame c0 - 2 overlap.
-template <bool kSmooth>
+// counted from frame c0 - 2 overlap; with kSeven its radix-7 instance
+// (fft_covers_smooth7(n_fft), n_fft with a factor 7: 896 = 7 4 4 4 2),
+// carve_fft / fft_stage / frames_irfft all told so.
+template <bool kSmooth, bool kSeven = false>
 __global__ void __launch_bounds__(kThreads, 2) pghi_synthesize_fft_kernel(SynthFftArgs a) {
     extern __shared__ __align__(16) float smem[];
     const int R = a.rows, T = a.T, F = a.F, hop = a.hop, ov = a.overlap;
     const int n = ov * hop;
     float* samples = smem;  // [R][hop]
-    const FftSmem fs = carve_fft<kSmooth>(samples + (size_t)R * hop, n);
+    const FftSmem fs = carve_fft<kSmooth, kSeven>(samples + (size_t)R * hop, n);
     const long long blk = blockIdx.x;
     const long long b = blk / a.n_tiles;
     const int c0 = (int)(blk - b * a.n_tiles) * R;
     const int n_chunks = T + ov - 1;
     const size_t bofs = (size_t)b * T * F;
-    fft_stage<kSmooth>(a.wsyn, a.fft_tw, fs, n);  // wsyn in the window's slot
+    fft_stage<kSmooth, kSeven>(a.wsyn, a.fft_tw, fs, n);  // wsyn in the window's slot
     for (int i = threadIdx.x; i < R * hop; i += kThreads) samples[i] = 0.0f;
     const int f0 = c0 - 2 * ov;
     // frames_irfft starts with a barrier and ends with one
-    frames_irfft<kSmooth>(
+    frames_irfft<kSmooth, kSeven>(
         min(R + 2 * ov, T - f0), ov, n, fs, fs.win, a.teams,
         [&](int r, int k, float& re, float& im) {
             const int f = f0 + r;
@@ -1388,7 +1394,8 @@ int att_pghi_synthesize(const float* mag, const float* phases, const float* basi
 // K's synthesis on the FFT route.  mag, phases: (B, T, F) float32 with F =
 // n_fft / 2 + 1, n_fft = overlap * hop a power of two from 64 to 4096 (1 <=
 // teams <= 4096 / n_fft FFTs side by side), or on the smooth route where
-// fft_covers_smooth(n_fft) (1 <= teams <= fft_smooth_max_teams(n_fft)); wsyn
+// fft_covers_smooth7(n_fft) (1 <= teams <= fft_smooth_max_teams(n_fft); the
+// radix-7 instance where n_fft has a factor 7); wsyn
 // (n_fft,) the synthesis window / n_fft (frames_fft.irfft_window); fft_tw (2,
 // n_fft) = (cos, -sin)(2 pi j / n_fft); out: (B, (T + overlap - 1) * hop),
 // every sample written.  rows output chunks per block, a multiple of 2
@@ -1399,8 +1406,9 @@ int att_pghi_synthesize_fft(const float* mag, const float* phases, const float* 
     using namespace att;
     const int n_fft = overlap * hop;
     const bool smooth = !fft_covers(n_fft);
+    const bool seven = smooth && n_fft % 7 == 0;
     const int max_teams = smooth ? fft_smooth_max_teams(n_fft) : fft_max_teams(n_fft);
-    if (B < 1 || T < 1 || overlap < 2 || (smooth && !fft_covers_smooth(n_fft)) || F != n_fft / 2 + 1 ||
+    if (B < 1 || T < 1 || overlap < 2 || (smooth && !fft_covers_smooth7(n_fft)) || F != n_fft / 2 + 1 ||
         rows < 1 || rows % (2 * overlap) != 0 || teams < 1 || teams > max_teams) {
         return (int)cudaErrorInvalidValue;
     }
@@ -1421,13 +1429,15 @@ int att_pghi_synthesize_fft(const float* mag, const float* phases, const float* 
     const dim3 grid((unsigned)(B * a.n_tiles));
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
-#define ATT_LAUNCH_SYNF(SMOOTH)                                                    \
-    do {                                                                           \
-        err = pghi_allow_smem(pghi_synthesize_fft_kernel<SMOOTH>, smem);           \
-        if (err != cudaSuccess) return (int)err;                                   \
-        pghi_synthesize_fft_kernel<SMOOTH><<<grid, kThreads, smem, s>>>(a);        \
+#define ATT_LAUNCH_SYNF(SMOOTH, SEVEN)                                                    \
+    do {                                                                                  \
+        err = pghi_allow_smem(pghi_synthesize_fft_kernel<SMOOTH, SEVEN>, smem);           \
+        if (err != cudaSuccess) return (int)err;                                          \
+        pghi_synthesize_fft_kernel<SMOOTH, SEVEN><<<grid, kThreads, smem, s>>>(a);        \
     } while (0)
-    if (smooth) ATT_LAUNCH_SYNF(true); else ATT_LAUNCH_SYNF(false);
+    if (seven) ATT_LAUNCH_SYNF(true, true);
+    else if (smooth) ATT_LAUNCH_SYNF(true, false);
+    else ATT_LAUNCH_SYNF(false, false);
 #undef ATT_LAUNCH_SYNF
     return (int)cudaGetLastError();
 }

@@ -20,14 +20,14 @@ K's synthesis and O's polish also take the mixed-radix schedule wherever
 :func:`fft_covers_smooth` takes ``n_fft`` (even, ``2^a 3^b 5^c``, 64 to 4096,
 not a power of two: 1200, 960, 768, 400, 1920, ...; the Griffin-Lim steps,
 K's synthesis and the polish where their block fits too); R, N's encode, L,
-M, the streaming decodes (P, S, O's projection synthesis) and the full-K
-melspec forward and fit (E, F, and so A and B) also where
-:func:`fft_covers_smooth7` does (a factor 7 as well: 896, 1344, 1680, 1764,
-...; L and M where their block fits, E and F where a tile does: not at
-4032/2016), with a radix-7 stage; every other ``n_fft`` keeps the
-window-folded products of ``dft_common.cuh`` and ``synth_ola.cuh`` (and A,
-B, G and H their factored front end; O's polish the two-launch
-projection).
+M, the streaming decodes (P, S, O's projection synthesis), the full-K
+melspec forward and fit (E, F, and so A and B), the full-K Griffin-Lim step
+J and K's synthesis also where :func:`fft_covers_smooth7` does (a factor 7
+as well: 896, 1344, 1680, 1764, ...; L, M, J and K's synthesis where their
+block fits, E and F where a tile does: not at 4032/2016), with a radix-7
+stage; every other ``n_fft`` keeps the window-folded products of
+``dft_common.cuh`` and ``synth_ola.cuh`` (and A, B, G and H their factored
+front end; O's polish the two-launch projection).
 
 The schedule, which :func:`frames_rfft_reference` and
 :func:`frames_irfft_reference` repeat step for step:
@@ -95,8 +95,8 @@ def fft_covers(n_fft: int) -> bool:
     Elsewhere R, L, M, the decodes, E and F (with A and B), G and H, J, C, D,
     I, K's synthesis and O's polish take the smooth route where
     :func:`fft_covers_smooth` does (R, N's encode, L, M, the decodes P, S
-    and O's projection synthesis, and E and F with A and B where
-    :func:`fft_covers_smooth7` does), and the products (A, B, G and H the
+    and O's projection synthesis, E and F with A and B, J and K's synthesis
+    where :func:`fft_covers_smooth7` does), and the products (A, B, G and H the
     factored front end, O's polish the two-launch projection) at every other
     ``n_fft``."""
     n = int(n_fft)
@@ -121,10 +121,12 @@ def fft_covers_smooth7(n_fft: int) -> bool:
     of two; every size :func:`fft_covers_smooth` takes, and those with a
     factor 7 (896, 1344, 1680, 1764, ...).  R, the magnitude encode, L, M
     (L and M where their block fits), the streaming decodes P, S and O's
-    projection synthesis, and the full-K melspec forward and fit E and F (so
-    A and B under the taps' own window; ``spectral.melspec_route``'s
-    ``"melspec"`` family) take it; every other kernel (G, H, J, C, D, I,
-    K's synthesis, O's polish) keeps :func:`fft_covers_smooth`."""
+    projection synthesis, the full-K melspec forward and fit E and F (so A
+    and B under the taps' own window; ``spectral.melspec_route``'s
+    ``"melspec"`` family), the full-K Griffin-Lim step J
+    (``glstep._fullk_plan``) and K's synthesis (``pghi_kernel.synth_route``)
+    take it, J and K's synthesis where their block fits; every other kernel
+    (G, H, C, D, I, O's polish) keeps :func:`fft_covers_smooth`."""
     return _smooth(n_fft, (2, 3, 5, 7))
 
 

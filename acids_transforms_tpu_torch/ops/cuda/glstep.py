@@ -56,12 +56,16 @@ is synthesized on its own and overlap-added, then analysed again.  Three
 routes, chosen by ``(n_fft, hop)`` alone (:func:`_fullk_plan`): where
 ``frames_fft.fft_covers(n_fft)`` (a power of two from 64 to 4096) the
 shared-memory FFT both ways (``csrc/fft_smem.cuh``: ``frames_irfft``, then
-``frames_rfft``), where ``fft_covers_smooth(n_fft)`` and its block fits the
-same on the mixed-radix FFT (the smooth route), elsewhere full-length
-inverse and forward DFT bases with the window folded in.  Its boundary rule is the eager loop's, not the
-one above: the overlap-add signal (envelope floored at ``eps^2``) is trimmed
-to the centre and reflect-padded again before it is re-framed, so every
-frame equals one ``istft`` + ``stft`` of the eager loop.  The JAX kernel it
+``frames_rfft``), where ``fft_covers_smooth7(n_fft)`` and its block fits the
+same on the mixed-radix FFT (the smooth route; its radix-7 instance where
+``n_fft`` has a factor 7: 896, 1344, 1568, ...), elsewhere (1408 = 2^7 11,
+8192, ...) full-length inverse and forward DFT bases with the window folded
+in.  C, D and I have no radix-7 instance: :func:`gl_step_route` keeps
+``fft_covers_smooth``, so they keep the chunk products at 896.  J's
+boundary rule is the eager loop's, not the one above: the overlap-add
+signal (envelope floored at ``eps^2``) is trimmed to the centre and
+reflect-padded again before it is re-framed, so every frame equals one
+``istft`` + ``stft`` of the eager loop.  The JAX kernel it
 replaces re-frames the un-trimmed signal; seeded by PGHI, that leaves the
 loud first and last frames far off the target (ROADMAP Queue 3).
 """
@@ -92,6 +96,7 @@ from .frames_fft import (
     class_plan_smooth,
     fft_covers,
     fft_covers_smooth,
+    fft_covers_smooth7,
     fft_area_floats,
     fft_twiddles,
     frames_irfft_reference,
@@ -709,10 +714,15 @@ def _fullk_fft_smem_bytes(rows: int, hop: int, n_fft: int, teams: int) -> int:
     return 4 * (rows * hop + fft_area_floats(n_fft, teams) + n_fft)
 
 
+#: blocks an SM J's radix-7 instance (``gl_fullk_fft_kernel<true, true>``)
+#: runs at the registers its build takes: 256 threads, 65536 registers an SM
+FULLK_SEVEN_BLOCKS = 3
+
+
 @functools.lru_cache(maxsize=None)
 def _pick_fullk_fft_block(n_fft: int, hop: int) -> Optional[Tuple[int, int, int]]:
     """``(rows, tile_t, teams)`` of the FFT route (``fft_covers(n_fft)``) or
-    the smooth route (``fft_covers_smooth(n_fft)``), or None: ``tile_t``
+    the smooth route (``fft_covers_smooth7(n_fft)``), or None: ``tile_t``
     frames a multiple of ``2 overlap`` (the synthesis's pair groups start at
     the block's first frame, the analysis's pairs ``(2j, 2j + 1)`` at an even
     one), ``rows = tile_t + overlap`` chunks, chosen with the analysis's
@@ -720,7 +730,8 @@ def _pick_fullk_fft_block(n_fft: int, hop: int) -> Optional[Tuple[int, int, int]
     ``class_plan_smooth`` with up to four blocks an SM (64 registers: 12
     frames and 4 FFTs at 768/256, the fastest plan of ``chip_smoke.py``'s
     sweep at all five shapes; the analysis's term moved the pick there from
-    42 frames, 3.3 % slower on an H100)."""
+    42 frames, 3.3 % slower on an H100), and where ``n_fft`` has a factor 7
+    (the radix-7 instance) up to :data:`FULLK_SEVEN_BLOCKS`."""
     overlap = n_fft // hop
 
     def smem(t, teams):
@@ -728,8 +739,9 @@ def _pick_fullk_fft_block(n_fft: int, hop: int) -> Optional[Tuple[int, int, int]
 
     if fft_covers(n_fft):
         plan = class_plan(n_fft, hop, smem, analysis_pairs=lambda t: t // 2)
-    elif fft_covers_smooth(n_fft):
-        plan = class_plan_smooth(n_fft, hop, smem, blocks=4, analysis_pairs=lambda t: t // 2)
+    elif fft_covers_smooth7(n_fft):
+        blocks = FULLK_SEVEN_BLOCKS if n_fft % 7 == 0 else 4
+        plan = class_plan_smooth(n_fft, hop, smem, blocks=blocks, analysis_pairs=lambda t: t // 2)
     else:
         plan = None
     if plan is None:
@@ -742,13 +754,14 @@ def _fullk_plan(n_fft: int, hop: int) -> Optional[Tuple[str, int, int, int]]:
     """The full-K step's route and block, read by the kernel wrapper and the
     plain version alike: ``("fft", rows, tile_t, teams)`` where
     ``fft_covers(n_fft)`` (:func:`_pick_fullk_fft_block`), ``("smooth", rows,
-    tile_t, teams)`` where ``fft_covers_smooth(n_fft)`` and a smooth block
-    fits, else ``("product", rows, tile_t, slab)`` (:func:`_pick_fullk_block`);
-    None when no block fits.  The route reads ``(n_fft, hop)`` alone."""
+    tile_t, teams)`` where ``fft_covers_smooth7(n_fft)`` and a smooth block
+    fits (the radix-7 instance where ``n_fft`` has a factor 7), else
+    ``("product", rows, tile_t, slab)`` (:func:`_pick_fullk_block`); None
+    when no block fits.  The route reads ``(n_fft, hop)`` alone."""
     if fft_covers(n_fft):
         pick = _pick_fullk_fft_block(n_fft, hop)
         return None if pick is None else ("fft",) + pick
-    if fft_covers_smooth(n_fft):
+    if fft_covers_smooth7(n_fft):
         pick = _pick_fullk_fft_block(n_fft, hop)
         if pick is not None:
             return ("smooth",) + pick

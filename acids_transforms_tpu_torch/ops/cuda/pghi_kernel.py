@@ -15,9 +15,11 @@ chunks.  The synthesis has three routes, picked by ``(n_fft, hop)`` alone
 FFT route (``csrc/fft_smem.cuh:frames_irfft``: an inverse FFT of every
 frame, the overlap-add by classes, no basis; plain version
 ``frames_irfft_reference`` and ``overlap_add_classes``), where
-``frames_fft.fft_covers_smooth(n_fft)`` (even, ``2^a 3^b 5^c``, no power of
-two: 768, 1200, ...) and a block fits the smooth route (the same kernel's
-mixed-radix instance, ``smooth=True`` in the plain version), elsewhere the
+``frames_fft.fft_covers_smooth7(n_fft)`` (even, ``2^a 3^b 5^c 7^d``, no
+power of two: 768, 1200, and with a factor 7 896, 1344, 1568, ...) and a
+block fits the smooth route (the same kernel's mixed-radix instance, its
+radix-7 instance where ``n_fft`` has a factor 7, ``smooth=True`` in the
+plain version), elsewhere (1408 = 2^7 11, odd sizes, above 4096) the
 product route (a window-folded basis of ``(overlap, 2F, hop)``, the inverse
 DFT and the overlap-add in one product).  ``routes`` counts its launches by
 route.  ``pghi_invert_fused`` is the recurrence followed by the synthesis;
@@ -57,7 +59,7 @@ from .frames_fft import (
     class_plan_smooth,
     fft_area_floats,
     fft_covers,
-    fft_covers_smooth,
+    fft_covers_smooth7,
     fft_twiddles,
     frames_irfft_reference,
     irfft_window,
@@ -164,17 +166,24 @@ def _synth_fft_smem_bytes(rows: int, hop: int, n_fft: int, teams: int) -> int:
     return 4 * (rows * hop + fft_area_floats(n_fft, teams))
 
 
+#: blocks an SM the radix-7 instance of K's synthesis
+#: (``pghi_synthesize_fft_kernel<true, true>``) runs at the registers its
+#: build takes: 256 threads, 65536 registers an SM
+SYNTH_SEVEN_BLOCKS = 3
+
+
 @functools.lru_cache(maxsize=None)
 def _synth_fft_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
     """``(rows, teams)`` of the FFT or smooth route's synthesis block, or
     None when none fits: ``rows`` output chunks, a multiple of ``2 overlap``,
     behind which it synthesizes ``rows + 2 overlap`` frames.  The FFT route
     (``fft_covers(n_fft)``): ``frames_fft.class_plan`` (56 chunks and 4 FFTs
-    at 1024/256); the smooth route (``fft_covers_smooth(n_fft)``):
+    at 1024/256); the smooth route (``fft_covers_smooth7(n_fft)``):
     ``frames_fft.class_plan_smooth`` with up to four blocks an SM, the
     decode's rule (its smooth instance is the decode's with the pairs counted
     from the block's first frame, 64 registers as the decode's: 18 chunks
-    and 4 FFTs at 768/256, 40 and 2 at 1200/300)."""
+    and 4 FFTs at 768/256, 40 and 2 at 1200/300), and where ``n_fft`` has a
+    factor 7 (the radix-7 instance) up to :data:`SYNTH_SEVEN_BLOCKS`."""
     ov = n_fft // hop
 
     def smem(rows, teams):
@@ -182,8 +191,9 @@ def _synth_fft_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
 
     if fft_covers(n_fft):
         return class_plan(n_fft, hop, smem, widest=max(64, 2 * ov))
-    if fft_covers_smooth(n_fft):
-        return class_plan_smooth(n_fft, hop, smem, widest=max(64, 2 * ov), blocks=4)
+    if fft_covers_smooth7(n_fft):
+        blocks = SYNTH_SEVEN_BLOCKS if n_fft % 7 == 0 else 4
+        return class_plan_smooth(n_fft, hop, smem, widest=max(64, 2 * ov), blocks=blocks)
     return None
 
 
@@ -191,11 +201,12 @@ def synth_route(n_fft: int, hop: int) -> str:
     """The route of K's synthesis at ``(n_fft, hop)``, read by the kernel
     wrapper and the plain version alike: ``"fft"`` where ``fft_covers(n_fft)``
     (a power of two from 64 to 4096), ``"smooth"`` where
-    ``fft_covers_smooth(n_fft)`` and a smooth block fits
-    (:func:`_synth_fft_plan`), else ``"product"``."""
+    ``fft_covers_smooth7(n_fft)`` and a smooth block fits
+    (:func:`_synth_fft_plan`; the radix-7 instance where ``n_fft`` has a
+    factor 7), else ``"product"``."""
     if fft_covers(n_fft):
         return "fft"
-    if n_fft % hop == 0 and n_fft // hop >= 2 and fft_covers_smooth(n_fft) and _synth_fft_plan(n_fft, hop):
+    if n_fft % hop == 0 and n_fft // hop >= 2 and fft_covers_smooth7(n_fft) and _synth_fft_plan(n_fft, hop):
         return "smooth"
     return "product"
 

@@ -67,8 +67,9 @@ for the syntheses of C, D, I, J, L, M, K, P, S and O) at a power of two
 from 64 to 4096, the window-folded products elsewhere (R, L, M, P, S,
 O's synthesis, E, F, G, H, J, C, D, I and K's synthesis take a third route,
 the mixed-radix FFT, at even 5-smooth n_fft; R, the magnitude encode, L,
-M, P, S, O's synthesis, E and F also at even 7-smooth n_fft with a factor
-7, on their radix-7 instances, the roundtrips where their block fits); so do the log-mel
+M, P, S, O's synthesis, E, F, J and K's synthesis also at even 7-smooth
+n_fft with a factor 7, on their radix-7 instances, the roundtrips, J and K's
+synthesis where their block fits); so do the log-mel
 forward and fit (A and B: E's and F's FFT, smooth and radix-7 instances under the
 taps' own window, the factored front end elsewhere), the representations' forward
 and fit statistics with taps (G and H: G and H full-K's FFT and smooth
@@ -83,8 +84,8 @@ extrema bit-identical and sums within 1e-5, at every power of two from 64
 under hann, hamming and blackman) and against a float64 oracle at 1024, 512,
 2048 and 4096 (C, D, I, K, G, H, P, S and O's synthesis at every power of
 two from 64), the factored route at 896/224 (G, H) and 1408/352 (A, B), and
-the product route at 896/224 (G, H, J, C, D, I, K),
-8192/2048 (J) and 1408/352 (R, L, M, P, S, O's synthesis, E, F),
+the product route at 896/224 (G, H, C, D, I),
+8192/2048 (J) and 1408/352 (R, L, M, P, S, O's synthesis, E, F, J, K),
 and the smooth route of R, L, M, P, S, O's synthesis and O's polish (the
 mixed-radix FFT) at 1200/300, 960/240, 768/192, 400/100 and 1920/480, and
 of R, the magnitude encode, L, M, P, S and O's synthesis (its radix-7
@@ -94,6 +95,9 @@ overlap 2, 3, 5, 6, 7 and 8), bit-identical to its plain version, of E and F (A 
 radix-7 instances) at 896/224, 896/128, 896/448, 1344/448, 1344/192,
 1568/224, 1120/160 and 672/96 (|X| and
 the extrema bit-identical, the mel product's and the sums' order aside), of
+J's radix-7 instance at 896/224, 896/128, 1344/192, 1568/224, 672/96 and
+4032/2016 and K's synthesis's at 896/224, 1344/336, 1568/224, 1764/252 and
+4032/1008 (bit-identical, within 1e-5 of the float64 oracle), of
 J, C, D and I at those seven framings (bit-identical, D to four C, every
 frame of C, I and J within 1e-5 of the float64 oracle), of G and H full-K
 at those seven (within 1e-6 of the plain version, 1e-5 of the float64
@@ -114,7 +118,8 @@ route's radix-7 instances, O's analysis on its product;
 two-launch synthesis among them) on the product route;
 ``STFT(1200, 300)`` and ``DGT(768, 256)``
 ``pghi`` inverts: K's synthesis on the smooth route, ``DGT(896, 224)`` on
-the product route; STFT(768, 192) and STFT(896, 224)
+its radix-7 instance, ``DGT(1408, 352)`` on the product route; STFT(768,
+192) and STFT(896, 224)
 Griffin-Lim inverts (C, D on the smooth, then the product route),
 STFT(768, 192) log-mel (A, B on the smooth route) and Polar chains' fit and
 forward, a DGT(768, 256) chain's fit and forward (E, F on the smooth
@@ -122,11 +127,12 @@ route), ``pghi`` and ``pghi_gl`` (J on the smooth route), DGT(768, 256) +
 PolarIF's fit and forward (G, H full-K on the smooth route; the Polar chain
 puts G and H with taps there), the STFT(896, 224) log-mel and DGT(896, 224)
 magnitude chains' fit and forward (A, B, E, F on their radix-7 instances),
-the STFT(896, 224) Polar and DGT(896, 224) PolarIF chains' fit and forward
-and the magnitude chain's ``pghi_gl``: G, H factored and G, H full-K, J on
-the product route, 896 = 2^7 7; the STFT(1408, 352) log-mel and DGT(1408,
-352) magnitude chains: A, B factored and E, F on the product route, 1408 =
-2^7 11).  Phase
+and the magnitude chain's ``pghi_gl`` (J on its radix-7 instance), the
+STFT(896, 224) Polar and DGT(896, 224) PolarIF chains' fit and forward: G,
+H factored and G, H full-K on the product route, 896 = 2^7 7; the
+STFT(1408, 352) log-mel and DGT(1408, 352) magnitude chains: A, B factored
+and E, F on the product route, the latter's ``pghi`` and ``pghi_gl``
+inverts K's synthesis and J on the product route, 1408 = 2^7 11).  Phase
 6 runs the floor sweep of A's factored design
 (``acids_transforms_tpu_torch.tools.sweep_kernel_floor``: kernel T, A cut
 after each of its stages) at the main path's shape, prints each stage's
@@ -191,6 +197,13 @@ MELSPEC_SEVEN_SHAPES = ((896, 224), (896, 128), (896, 448), (1344, 448), (1344, 
 # the session framings of the smooth route (R, L, M, the decodes, O's polish):
 # 2^4 3 5^2, 2^6 3 5, 2^8 3, 2^4 5^2, 2^7 3 5 at overlap 4
 SESSION_SMOOTH_SHAPES = ((1200, 300), (960, 240), (768, 192), (400, 100), (1920, 480))
+# the framings phase 3 holds J's radix-7 instance at: 2^7 7 at overlap 4 and
+# 7, 2^6 3 7 at overlap 7, 2^5 7^2 (radices 7 7) at overlap 7, 2^5 3 7 at
+# overlap 7, 2^6 3^2 7 at overlap 2
+J_SEVEN_SHAPES = ((896, 224), (896, 128), (1344, 192), (1568, 224), (672, 96), (4032, 2016))
+# and K's synthesis's: 2^7 7 and 2^6 3 7 at overlap 4, 2^5 7^2 at overlap
+# 7, 2^2 3^2 7^2 at overlap 7, 2^6 3^2 7 at overlap 4
+K_SEVEN_SHAPES = ((896, 224), (1344, 336), (1568, 224), (1764, 252), (4032, 1008))
 # the framings of R's, L's and the decode's radix-7 instances whose plans
 # phase 5 sweeps: 2^7 7, 2^6 3 7, 2^8 7, 2^4 3 5 7 at overlap 4
 SEVEN_SHAPES = ((896, 224), (1344, 336), (1792, 448), (1680, 420))
@@ -206,7 +219,7 @@ def log(msg: str) -> None:
 
 #: the smooth route's plan sweep: the framings it times E and F at
 PLAN_SWEEP_SHAPES = ((768, 256), (768, 192), (640, 160), (1536, 384), (1920, 480))
-#: and those of E's and F's radix-7 instance
+#: and those of the radix-7 instances of E and F, J and K's synthesis
 SEVEN_PLAN_SWEEP_SHAPES = ((896, 224), (1568, 224))
 
 
@@ -414,7 +427,9 @@ def repr_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
 
 def gl_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
     """C (hann) and J (the DGT's gaussian) on the smooth route at each of
-    PLAN_SWEEP_SHAPES under every plan the kernels take (tile_t a multiple
+    PLAN_SWEEP_SHAPES, and J on its radix-7 instance at each of
+    SEVEN_PLAN_SWEEP_SHAPES (C has none: the product route there), under
+    every plan the kernels take (tile_t a multiple
     of 2 overlap up to 64 x 1, 2, 4, ... FFTs side by side, within the
     route's teams and shared memory), the card's time a call back to back
     (device_ms); the output must be bit-identical under every plan (the
@@ -428,9 +443,9 @@ def gl_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
     rule_c, rule_j = glstep._step_fft_plan, glstep._pick_fullk_fft_block
     mom, out = 0.99 / 1.99, {}
     try:
-        for n_fft, hop in PLAN_SWEEP_SHAPES:
+        for n_fft, hop in PLAN_SWEEP_SHAPES + SEVEN_PLAN_SWEEP_SHAPES:
             ov = n_fft // hop
-            for kernel in ("C", "J"):
+            for kernel in ("C", "J") if (n_fft, hop) in PLAN_SWEEP_SHAPES else ("J",):
                 if kernel == "C":
                     w = get_window("hann", n_fft, device=mono.device)
                     taps = taps_for_window(w)
@@ -482,8 +497,9 @@ def gl_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
 
 
 def k_synth_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
-    """K's synthesis on the smooth route at each of PLAN_SWEEP_SHAPES (the
-    DGT's gaussian window, random phases) under every plan the kernel takes
+    """K's synthesis on the smooth route at each of PLAN_SWEEP_SHAPES, and
+    on its radix-7 instance at each of SEVEN_PLAN_SWEEP_SHAPES (the DGT's
+    gaussian window, random phases) under every plan the kernel takes
     (rows a multiple of 2 overlap up to max(64, 2 overlap) x 1, 2, 4, ...
     FFTs side by side, within the route's teams and shared memory), the
     card's time a call back to back; the output must be bit-identical under
@@ -496,7 +512,7 @@ def k_synth_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
 
     rule, out = pk._synth_fft_plan, {}
     try:
-        for n_fft, hop in PLAN_SWEEP_SHAPES:
+        for n_fft, hop in PLAN_SWEEP_SHAPES + SEVEN_PLAN_SWEEP_SHAPES:
             ov = n_fft // hop
             mag = stft(mono, n_fft, hop, gaussian_dgt_window(n_fft, device=mono.device)).abs()
             ph = 2 * math.pi * torch.rand(mag.shape, device=mono.device,
@@ -704,22 +720,42 @@ def repr_smooth_resources(res: dict) -> dict:
 
 
 def gl_smooth_resources(res: dict) -> dict:
-    """The build log's resources of the Griffin-Lim steps' smooth instances
-    (template argument kSmooth = true, ``ILb1E`` in the mangled name):
-    ``gl_step_fft_kernel<true>`` (C, D, I) and ``gl_fullk_fft_kernel<true>``
-    (J)."""
+    """The build log's resources of the Griffin-Lim steps' 5-smooth
+    instances (template argument kSmooth = true): ``gl_step_fft_kernel<true>``
+    (C, D, I; ``ILb1EE`` in the mangled name) and ``gl_fullk_fft_kernel<true,
+    false>`` (J; ``ILb1ELb0EE``)."""
     return {k: v for k, v in res.items()
-            if ("gl_step_fft_kernel" in k or "gl_fullk_fft_kernel" in k) and "ILb1E" in k}
+            if "gl_step_fft_kernelILb1EE" in k or "gl_fullk_fft_kernelILb1ELb0EE" in k}
+
+
+def gl_k_seven_resources(res: dict) -> dict:
+    """The build log's resources of J's and K's synthesis's radix-7
+    instances (``gl_fullk_fft_kernel<true, true>``,
+    ``pghi_synthesize_fft_kernel<true, true>``: ``ILb1ELb1EE``), by the
+    labels ``J`` and ``K``."""
+    out = {}
+    for k, v in res.items():
+        if "gl_fullk_fft_kernelILb1ELb1EE" in k:
+            out["J"] = v
+        elif "pghi_synthesize_fft_kernelILb1ELb1EE" in k:
+            out["K"] = v
+    return out
+
+
+def seven_blocks(regs: int) -> int:
+    """Blocks of 256 threads an SM holds at ``regs`` registers a thread (the
+    registers allocated 8 a thread at a time, 65536 an SM)."""
+    return 65536 // (256 * 8 * -(-regs // 8))
 
 
 def k_polish_smooth_resources(res: dict) -> dict:
     """The build log's resources of K's synthesis's and O's polish's smooth
-    instances: ``pghi_synthesize_fft_kernel<true>`` (``ILb1EE``) and
-    ``gl_polish_fft_kernel<kResident, true>`` (``ILb0ELb1EE``, ``ILb1ELb1EE``),
-    by the labels ``K``, ``O resident``, ``O device``."""
+    instances: ``pghi_synthesize_fft_kernel<true, false>`` (``ILb1ELb0EE``)
+    and ``gl_polish_fft_kernel<kResident, true>`` (``ILb0ELb1EE``,
+    ``ILb1ELb1EE``), by the labels ``K``, ``O resident``, ``O device``."""
     out = {}
     for k, v in res.items():
-        if "pghi_synthesize_fft_kernelILb1EE" in k:
+        if "pghi_synthesize_fft_kernelILb1ELb0EE" in k:
             out["K"] = v
         elif "gl_polish_fft_kernelILb1ELb1EE" in k:
             out["O resident"] = v
@@ -751,14 +787,15 @@ def smooth_instance_resources(res: dict) -> dict:
     """The build log's resources of every mixed-radix instance of every
     kernel, by its mangled name: the sessions' (encode, roundtrip, decode,
     polish; their kSmooth argument true), E's and F's (the radix-7 ones
-    too), G's and H's, the Griffin-Lim steps' and K's synthesis's."""
+    too), G's and H's, the Griffin-Lim steps' and K's synthesis's (J's and
+    K's radix-7 ones too)."""
     out = dict(melspec_smooth_resources(res))
     out.update(melspec_smooth_resources(res, seven=True))
     out.update({k: v for k, v in res.items() if ("repr_forward_kernel" in k or "repr_stats_kernel" in k)
                 and "Li3E" in k})
     out.update(gl_smooth_resources(res))
     for k, v in res.items():
-        if ("pghi_synthesize_fft_kernelILb1EE" in k or "gl_polish_fft_kernelIL" in k and "ELb1EE" in k
+        if ("pghi_synthesize_fft_kernelILb1E" in k or "gl_fullk_fft_kernelILb1ELb1EE" in k or "gl_polish_fft_kernelIL" in k and "ELb1EE" in k
                 or "session_decode_fft_kernelIL" in k and ("ELb1ELb0EE" in k or "ELb1ELb1EE" in k)
                 or "session_encode_kernelILb" in k and ("ELb1ELb1ELb0EE" in k or "ELb1ELb1ELb1EE" in k)
                 or "session_roundtrip_fft_kernelIL" in k and ("ELb1ELb0EE" in k or "ELb1ELb1EE" in k)):
@@ -2227,8 +2264,11 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
       The Griffin-Lim invert of an ``STFT(768, 192)`` takes C and D's smooth
       route, of an ``STFT(896, 224)`` their product route; the 768/256
       chain's ``pghi_gl`` invert takes J's smooth route, the 896/224 chain's
-      J's product route, and the 768/256 ``pghi`` invert K's synthesis's
-      smooth route, the 896/224 one its product route, each converging like
+      J's radix-7 instance (counted ``:smooth7``, timed in turns with the
+      product route 896 took before), the 1408/352 chain's J's product
+      route, and the 768/256 ``pghi`` invert K's synthesis's smooth route,
+      the 896/224 one its radix-7 instance (``:smooth7``, timed in turns
+      likewise), the 1408/352 one its product route, each converging like
       the eager route; G and H full-K
       through ``DGT(768, 256) + PolarIF``'s fit and
       forward (product), G and H with taps through STFT(768, 192) +
@@ -2721,8 +2761,8 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
         "melspec_fullk"]["routes"]), "regions: E's decision at 768 is not the table's smooth route")
     d_fit_y, y_y = fit_forward("DGT(896, 224) magnitude chain (E, F radix-7)", dgt_mag(896, 224),
                                ("fused_melspec_fullk:smooth", "fused_melspec_stats_fullk:smooth"), seven=True)
-    fit_forward("DGT(1408, 352) magnitude chain (E, F product)", dgt_mag(1408, 352),
-                ("fused_melspec_fullk:product", "fused_melspec_stats_fullk:product"))
+    d_fit_11, y_11 = fit_forward("DGT(1408, 352) magnitude chain (E, F product)", dgt_mag(1408, 352),
+                                 ("fused_melspec_fullk:product", "fused_melspec_stats_fullk:product"))
     fit_forward("STFT(768, 192) log-mel chain (A, B smooth)", stft_logmel(768, 192),
                 ("fused_melspec:smooth", "fused_melspec_stats:smooth"))
     fit_forward("STFT(896, 224) log-mel chain (A, B radix-7)", stft_logmel(896, 224),
@@ -2789,19 +2829,22 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
                + T.PolarIF(magnitude_args={"mode": "bipolar", "n_fft": 896}),
                ("fused_repr_stats_fullk:product", "fused_spectral_repr_fullk:product"), None)
     # J through that chain's pghi_gl inversion, converging like the eager
-    # loop from the same seed: the smooth route at 768/256 (2^8 3), the
-    # product route at 896/224 (2^7 7)
-    def pghi_gl(fit, y, n_fft, hop, route):
+    # loop from the same seed: the smooth route at 768/256 (2^8 3), its
+    # radix-7 instance at 896/224 (2^7 7; `seven`: counted `:smooth7`), the
+    # product route at 1408/352 (2^7 11)
+    def pghi_gl(fit, y, n_fft, hop, route, seven=False):
         dgt = fit[1]
         draws = dgt._draws
         zero()
         rec = fit.invert(y, inversion_mode="pghi_gl")
         torch.cuda.synchronize()
         got = {k: v for k, v in gs.routes.items() if v}
-        log(f"  DGT({n_fft}, {hop}) pghi_gl invert: launches {gs.launches['gl_momentum_fullk']} J, routes {got}")
-        require(got == {f"gl_momentum_fullk:{route}": dgt.gl_iterations} and torch.isfinite(rec).all().item(),
+        log(f"  DGT({n_fft}, {hop}) pghi_gl invert: launches {gs.launches['gl_momentum_fullk']} J, routes {got}"
+            + (" (the radix-7 instance)" if seven else ""))
+        require(got == {f"gl_momentum_fullk:{route}": dgt.gl_iterations} and torch.isfinite(rec).all().item()
+                and (n_fft % 7 == 0) == seven,
                 f"DGT({n_fft}, {hop}) pghi_gl: J must launch on the {route} route every iteration")
-        counts[f"gl_momentum_fullk:{route}"] = got[f"gl_momentum_fullk:{route}"]
+        counts[f"gl_momentum_fullk:{route}" + ("7" if seven else "")] = got[f"gl_momentum_fullk:{route}"]
         target = fit[2].invert(y)
         ph0 = dgt.pghi(target, generator=torch.Generator(device=dev).manual_seed(dgt.seed + draws))
         rec_e = dgt.griffin_lim(target, init_phase=ph0, fused=False)
@@ -2818,24 +2861,27 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
         return dgt, target, conv
 
     dgt, target, conv = pghi_gl(d_fit, y_k, 768, 256, "smooth")
-    dgt_y, target_y, conv_y = pghi_gl(d_fit_y, y_y, 896, 224, "product")
-    # K's synthesis on the smooth route (768/256) and on the product route
-    # (896/224): each chain's pghi inversion, converging like the eager
-    # pghi_scan + istft from the same seed
+    dgt_y, target_y, conv_y = pghi_gl(d_fit_y, y_y, 896, 224, "smooth", seven=True)
+    dgt_11, target_11, conv_11 = pghi_gl(d_fit_11, y_11, 1408, 352, "product")
+    # K's synthesis on the smooth route (768/256), its radix-7 instance
+    # (896/224) and the product route (1408/352): each chain's pghi
+    # inversion, converging like the eager pghi_scan + istft from the same
+    # seed
     from acids_transforms_tpu_torch.ops import pghi as pghi_ops
     from acids_transforms_tpu_torch.ops.fft import istft
 
-    def pghi_invert(fit, y, dgt_c, target_c, conv_c, n_fft, hop, route):
+    def pghi_invert(fit, y, dgt_c, target_c, conv_c, n_fft, hop, route, seven=False):
         zero()
         rec = fit.invert(y, inversion_mode="pghi")
         torch.cuda.synchronize()
         got = {k: v for k, v in pk.routes.items() if v}
         log(f"  DGT({n_fft}, {hop}) pghi invert: launches { {k: v for k, v in pk.launches.items() if v} }, "
-            f"routes {got}")
+            f"routes {got}" + (" (the radix-7 instance)" if seven else ""))
         require(got == {f"pghi_synthesize:{route}": 1} and pk.launches["pghi_phases"] == 1
-                and pk.launches["pghi_plan"] == 1 and torch.isfinite(rec).all().item(),
+                and pk.launches["pghi_plan"] == 1 and torch.isfinite(rec).all().item()
+                and (n_fft % 7 == 0) == seven,
                 f"DGT({n_fft}, {hop}) pghi: K's synthesis must take the {route} route")
-        counts[f"pghi_synthesize:{route}"] += 1
+        counts[f"pghi_synthesize:{route}" + ("7" if seven else "")] += 1
         g_e = torch.Generator(device=dev).manual_seed(dgt_c.seed)
         ph_e = pghi_ops.pghi_scan(target_c, dgt_c.gamma, n_fft, hop, tolerance=dgt_c.tolerance,
                                   time_stencil="central", generator=g_e)
@@ -2846,7 +2892,31 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
                                                    "scan")
 
     pghi_invert(d_fit, y_k, dgt, target, conv, 768, 256, "smooth")
-    pghi_invert(d_fit_y, y_y, dgt_y, target_y, conv_y, 896, 224, "product")
+    pghi_invert(d_fit_y, y_y, dgt_y, target_y, conv_y, 896, 224, "smooth", seven=True)
+    pghi_invert(d_fit_11, y_11, dgt_11, target_11, conv_11, 1408, 352, "product")
+
+    # the 896/224 inversions end to end on the radix-7 instances against the
+    # product routes 896 took before (J's plan and K's synthesis route sent
+    # to the product), in turns old, new, new, old: one call alone, host
+    # clock to the card's end, median of 3
+    plan_j, route_k = gs._fullk_plan, pk.synth_route
+
+    def on_product(fn):
+        gs._fullk_plan = lambda n_fft, hop: ("product",) + gs._pick_fullk_block(n_fft, hop)
+        pk.synth_route = lambda *a: "product"
+        try:
+            return fn()
+        finally:
+            gs._fullk_plan, pk.synth_route = plan_j, route_k
+
+    for mode in ("pghi_gl", "pghi"):
+        def inv():
+            return d_fit_y.invert(y_y, inversion_mode=mode)
+        turns = [on_product(lambda: time_ms(inv, 3)), time_ms(inv, 3), time_ms(inv, 3),
+                 on_product(lambda: time_ms(inv, 3))]
+        log(f"    DGT(896, 224) {mode} invert, one call alone (host clock to the card's end, median of 3), in turns "
+            f"the product route 896 took before, radix-7, radix-7, product: {' / '.join(f'{t:.3f}' for t in turns)} "
+            "ms")
     log(f"  phase 4h {time.perf_counter() - t_start:.1f} s")
 
 
@@ -4175,7 +4245,7 @@ def main() -> int:
             and all(r["registers"] <= 128 for r in seven_res.values()),
             f"the radix-7 instances: R, N's encode, L, M, P and S, at most 128 registers (found {sorted(seven_res)})")
     d_regs = max(seven_res["P"]["registers"], seven_res["S"]["registers"])
-    d_blocks = 65536 // (256 * 8 * -(-d_regs // 8))
+    d_blocks = seven_blocks(d_regs)
     log(f"    the decode's radix-7 instances: {d_regs} registers, {d_blocks} blocks an SM by registers (the plan "
         f"counts {ss.DECODE_SEVEN_BLOCKS})")
     require(d_blocks == ss.DECODE_SEVEN_BLOCKS, "the decode's radix-7 plan counts another number of blocks an SM "
@@ -4357,6 +4427,58 @@ def main() -> int:
     log(f"    the Griffin-Lim smooth route: every one of {n_gl} shapes takes it, plans and shared-memory sizes agree "
         f"(C / D / I at 768/192 {glstep._step_fft_plan(768, 192)}, 640/160 {glstep._step_fft_plan(640, 160)} as "
         f"(frames, FFTs); J at 768/256 {glstep._fullk_plan(768, 256)} as (route, chunks, frames, FFTs))")
+    # J and K's synthesis on the smooth route's radix-7 instance: every even
+    # 7-smooth shape with a factor 7 their gates take (J: hop a multiple of
+    # 32, overlap 2 to 8, 42 shapes; K: hop a multiple of 4 and a product
+    # tile that fits, 321), the route and the plan's layout against the
+    # source's at the plan's team count and one team; C, D and I keep the
+    # product route there; the two instances' registers and spill, and the
+    # blocks an SM their plans count against what those registers allow
+    jk_res = gl_k_seven_resources(_build.kernel_resources())
+    for name, res in jk_res.items():
+        log(f"    {name} radix-7 instance: {res['registers']} registers, spill stores / loads "
+            f"{res.get('spill_stores', 0)} / {res.get('spill_loads', 0)} B, {seven_blocks(res['registers'])} blocks "
+            f"an SM by registers (the plan counts "
+            f"{glstep.FULLK_SEVEN_BLOCKS if name == 'J' else pghi_kernel.SYNTH_SEVEN_BLOCKS})")
+    require(set(jk_res) == {"J", "K"} and all(r["registers"] <= 128 for r in jk_res.values()),
+            f"the radix-7 instances of J and K's synthesis: two, at most 128 registers (found {sorted(jk_res)})")
+    require(seven_blocks(jk_res["J"]["registers"]) == glstep.FULLK_SEVEN_BLOCKS
+            and seven_blocks(jk_res["K"]["registers"]) == pghi_kernel.SYNTH_SEVEN_BLOCKS,
+            "J's or K's radix-7 plan counts another number of blocks an SM than the instance's registers allow")
+    sevens = [n for n in range(64, 4097, 2) if ff.fft_covers_smooth7(n) and n % 7 == 0]
+    n_seven_j = n_seven_k = 0
+    for n_fft_s in sevens:
+        for ov_s in range(2, 9):
+            hop_s = n_fft_s // ov_s
+            if n_fft_s % ov_s or not glstep.gl_fullk_available(n_fft_s, hop_s):
+                continue
+            route_j, rows_j, tile_j, teams_j = glstep._fullk_plan(n_fft_s, hop_s)
+            require(route_j == "smooth" and glstep.gl_step_route(n_fft_s, hop_s) == "product"
+                    and tile_j % (2 * ov_s) == 0 and rows_j == tile_j + ov_s,
+                    f"{n_fft_s}/{hop_s}: J must take its radix-7 instance, C / D / I the product")
+            for tm in sorted({1, teams_j}):
+                require(lib.att_gl_fullk_fft_smem_bytes(rows_j, hop_s, n_fft_s, tm)
+                        == glstep._fullk_fft_smem_bytes(rows_j, hop_s, n_fft_s, tm),
+                        f"{n_fft_s}/{hop_s}: J's radix-7 shared-memory size: wrapper and source disagree")
+            require(glstep._fullk_fft_smem_bytes(rows_j, hop_s, n_fft_s, teams_j) <= ff.MAX_SMEM,
+                    f"{n_fft_s}/{hop_s}: J's radix-7 plan exceeds shared memory")
+            n_seven_j += 1
+        for hop_s in range(4, n_fft_s // 2 + 1, 4):
+            if n_fft_s % hop_s or not pghi_kernel.pghi_fused_available(n_fft_s, hop_s):
+                continue
+            require(pghi_kernel.synth_route(n_fft_s, hop_s) == "smooth",
+                    f"{n_fft_s}/{hop_s}: K's synthesis must take its radix-7 instance")
+            rows, teams = pghi_kernel._synth_fft_plan(n_fft_s, hop_s)
+            for tm in sorted({1, teams}):
+                require(lib.att_pghi_synth_fft_smem_bytes(rows, hop_s, n_fft_s, tm)
+                        == pghi_kernel._synth_fft_smem_bytes(rows, hop_s, n_fft_s, tm),
+                        f"{n_fft_s}/{hop_s}: K's radix-7 shared-memory size: wrapper and source disagree")
+            n_seven_k += 1
+    log(f"    J and K's synthesis on the radix-7 instance: {n_seven_j} / {n_seven_k} shapes, routes and shared-memory "
+        f"sizes agree (J at 896/224 {glstep._fullk_plan(896, 224)}, 1568/224 {glstep._fullk_plan(1568, 224)} as "
+        f"(route, chunks, frames, FFTs); K at 896/224 {pghi_kernel._synth_fft_plan(896, 224)}, 1344/336 "
+        f"{pghi_kernel._synth_fft_plan(1344, 336)} as (chunks, FFTs))")
+    require(n_seven_j == 42 and n_seven_k == 321, "the radix-7 route of J and K: 42 and 321 shapes")
     # the FFT route of R / the magnitude encode and of E / F: both layouts at
     # every size the route takes, with the plans' team counts and fewer
     n_fft_checked = 0
@@ -4792,10 +4914,12 @@ def main() -> int:
     # measured bit-identical) and against a float64 istft of the same
     # magnitudes and float32 phases (1e-5: float32 sums over 2.5 n log2 n
     # terms), on unwrapped phases up to 1e4 rad, with silent frames, a silent
-    # clip and an odd frame count whose last pair group has no partners; the
-    # product route at 896/224 (2^7 7) against its plain version (1e-4: fp32
-    # products in another order than cuBLAS) and the oracle.  The route comes
-    # from the rule (pghi_kernel.synth_route).
+    # clip and an odd frame count whose last pair group has no partners; its
+    # radix-7 instance at the K_SEVEN_SHAPES framings (bit-identical to the
+    # plain version, rows K_synth_smooth7); the product route at 1408/352
+    # (2^7 11) against its plain version (1e-4: fp32 products in another
+    # order than cuBLAS) and the oracle.  The route comes from the rule
+    # (pghi_kernel.synth_route).
     def check_synth_route(name, n_fft, hop, x):
         w_s = gaussian_dgt_window(n_fft, device=dev)
         mag = att.ops.stft(x, n_fft, hop, w_s).abs()
@@ -4824,7 +4948,10 @@ def main() -> int:
         require(torch.isfinite(a_k).all().item() and a_k.shape == a_p.shape and not a_k[1].any(),
                 f"K synthesis {name}: bad audio")
         require(e_p <= tol and e_o <= 1e-5, f"K synthesis {name} out of budget")
-        key = {"fft": "K_synth", "smooth": "K_synth_smooth", "product": "K_synth_product"}[route]
+        seven = route == "smooth" and n_fft % 7 == 0
+        require(not seven or torch.equal(a_k, a_p), f"K synthesis {name}: the radix-7 instance is not bit-identical")
+        key = {"fft": "K_synth", "smooth": "K_synth_smooth", "product": "K_synth_product"}[route] + ("7" if seven
+                                                                                                      else "")
         errs[key] = max(errs.get(key, 0.0), abs_err(a_k, a_p))
         return route
 
@@ -4835,8 +4962,11 @@ def main() -> int:
     for n_fft, hop in SMOOTH_SHAPES + ((1200, 300),):
         require(check_synth_route(f"{n_fft}/{hop}", n_fft, hop, small) == "smooth",
                 f"K synthesis {n_fft}/{hop}: must take the smooth route")
-    require(check_synth_route("896/224", 896, 224, small) == "product",
-            "K synthesis 896/224: must take the product route")
+    for n_fft, hop in K_SEVEN_SHAPES:
+        require(check_synth_route(f"{n_fft}/{hop}", n_fft, hop, small) == "smooth",
+                f"K synthesis {n_fft}/{hop}: must take the radix-7 instance")
+    require(check_synth_route("1408/352", 1408, 352, small) == "product",
+            "K synthesis 1408/352: must take the product route")
 
     # G and H: the two-channel representation kernels (Polar "phase",
     # PolarIF "if", Cartesian "imag"), factored (hann) and full-K (gaussian).
@@ -5248,7 +5378,7 @@ def main() -> int:
         glstep.reset_launches()
         step, to_rows, _ = glstep.make_gl_momentum_step_fullk(mag, n_fft, hop, w_s, mom)
         ko = step(*[to_rows(a) for a in st])
-        want = "fft" if ff.fft_covers(n_fft) else ("smooth" if ff.fft_covers_smooth(n_fft) else "product")
+        want = "fft" if ff.fft_covers(n_fft) else ("smooth" if ff.fft_covers_smooth7(n_fft) else "product")
         require(glstep.routes[f"gl_momentum_fullk:{route}"] == 1 and sum(glstep.routes.values()) == 1
                 and route == want, f"J {name}: not on the {want} route")
         env = glstep._env_rows(mag.shape[1], n_fft, hop, w_s)
@@ -5276,7 +5406,9 @@ def main() -> int:
             f"{glstep._fullk_plan(n_fft, hop)[1:]} (chunks, frames, FFTs or slab)")
         require(all(torch.isfinite(t).all().item() for t in ko), f"J {name}: not finite")
         require(e_p <= tol and e_o <= 1e-5 and e_e <= 1e-5 and e_a <= tol, f"J {name} disagrees")
-        key = {"fft": "J", "smooth": "J_smooth", "product": "J_product"}[route]
+        seven = route == "smooth" and n_fft % 7 == 0
+        require(not seven or same, f"J {name}: the radix-7 instance is not bit-identical to its plain version")
+        key = {"fft": "J", "smooth": "J_smooth", "product": "J_product"}[route] + ("7" if seven else "")
         errs[key] = max(errs.get(key, 0.0), max(abs_err(ko[i], po[i]) for i in (2, 3)))
 
     check_fullk("main shape", att.ops.stft(mono, N_FFT, HOP, w_dgt).abs(), N_FFT, HOP, args.seed + 41)
@@ -5292,11 +5424,13 @@ def main() -> int:
                     args.seed + n_fft + hop)
     # 4096/512 on the FFT route (its product block would need slabs); the
     # smooth route at every SMOOTH_SHAPES framing (bit-identical to the plain
-    # version); the product route where n_fft is neither (896/224 = 2^7 7)
-    # or above 4096 (8192/2048: not even overlap + 2 chunks' whole [re | im]
-    # rows fit shared memory, so J builds them in slabs); a clip of three
-    # frames reflects its trimmed signal twice (L = n_fft / 2)
-    for n_fft, hop in ((4096, 512), (896, 224), (8192, 2048)) + SMOOTH_SHAPES:
+    # version) and its radix-7 instance at every J_SEVEN_SHAPES framing
+    # (bit-identical too, rows J_smooth7); the product route where n_fft is
+    # neither (1408/352 = 2^7 11) or above 4096 (8192/2048: not even overlap
+    # + 2 chunks' whole [re | im] rows fit shared memory, so J builds them in
+    # slabs); a clip of three frames reflects its trimmed signal twice (L =
+    # n_fft / 2)
+    for n_fft, hop in ((4096, 512), (1408, 352), (8192, 2048)) + SMOOTH_SHAPES + J_SEVEN_SHAPES:
         w_s = gaussian_dgt_window(n_fft, device=dev)
         check_fullk(f"{n_fft}/{hop}", att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop,
                     args.seed + n_fft + hop)
@@ -5446,6 +5580,7 @@ def main() -> int:
     counts.update({k: v for k, v in spectral.routes.items() if "_fullk:" in k})   # A and B's: phase 4
     counts.update({k + ":smooth7": 0 for k in ("fused_melspec_fullk", "fused_melspec_stats_fullk")})   # phase 4h
     counts.update(pghi_kernel.routes)
+    counts["pghi_synthesize:smooth7"] = 0      # K's synthesis's radix-7 launches: phase 4h
     counts.update({k: dgt_counts[k] for k in ("fused_melspec_fullk", "fused_melspec_stats_fullk",
                                               "pghi_plan", "pghi_phases", "pghi_synthesize")})
     require(tuple(y_dgt.shape) == (B, n_frames, N_FFT // 2 + 1), f"DGT magnitude shape {tuple(y_dgt.shape)}")
@@ -6116,9 +6251,9 @@ def main() -> int:
     # overlap frames (fft_design_flops: the pack in place of the split, the
     # window in place of the windowing), sincos and two products per bin (22)
     # and one addition per sample; the smooth route (768/256 here, on the
-    # same clips) the same with smooth_design_flops; the product route
-    # (896/224 = 2^7 7, on the same clips) the product of 2F terms per sample
-    # and overlap.
+    # same clips) the same with smooth_design_flops, its radix-7 instance
+    # (896/224 = 2^7 7) likewise; the product route (1408/352 = 2^7 11, on
+    # the same clips) the product of 2F terms per sample and overlap.
     synth_need = fft_flops + B * Tn * (40.0 * F + 2.0 * N_FFT)
     synth_bound = bound_of(8.0 * n_el + 4.0 * n_audio, synth_need)
     k_rows, _ = pghi_kernel._synth_fft_plan(N_FFT, HOP)
@@ -6136,7 +6271,7 @@ def main() -> int:
     kp_blocks = B * -(-(Tp + ov_p - 1) // kp_rows)
     synth_flops_p = (smooth_design_flops(n_fft_p, kp_blocks * (kp_rows + 2 * ov_p)) + 22.0 * el_p
                      + float(B * Tp * n_fft_p))
-    # K's synthesis on the product route at 896/224 (2^7 7), the same clips
+    # K's synthesis on its radix-7 instance at 896/224 (2^7 7), the same clips
     ky_n, ky_hop = 896, 224
     ky_T, ky_F, ky_ov = 1 + L // ky_hop, ky_n // 2 + 1, ky_n // ky_hop
     ky_el, ky_audio = float(B * ky_T * ky_F), float(B * (ky_T + ky_ov - 1) * ky_hop)
@@ -6147,7 +6282,21 @@ def main() -> int:
     w_ky_inv = T.DGT(n_fft=ky_n, hop_length=ky_hop).inv_window
     synth_bound_y = bound_of(8.0 * ky_el + 4.0 * ky_audio, 2.5 * ky_n * math.log2(ky_n) * B * ky_T
                              + B * ky_T * (40.0 * ky_F + 2.0 * ky_n))
-    synth_flops_y = 2.0 * ky_audio * ky_ov * 2.0 * ky_F + 22.0 * ky_el    # the product this route runs
+    ky_rows, _ = pghi_kernel._synth_fft_plan(ky_n, ky_hop)
+    ky_blocks = B * -(-(ky_T + ky_ov - 1) // ky_rows)
+    synth_flops_y = (smooth_design_flops(ky_n, ky_blocks * (ky_rows + 2 * ky_ov)) + 22.0 * ky_el
+                     + float(B * ky_T * ky_n))
+    # and on the product route at 1408/352 (2^7 11), the same clips
+    kx_n, kx_hop = 1408, 352
+    kx_T, kx_F, kx_ov = 1 + L // kx_hop, kx_n // 2 + 1, kx_n // kx_hop
+    kx_el, kx_audio = float(B * kx_T * kx_F), float(B * (kx_T + kx_ov - 1) * kx_hop)
+    kx_target = att.ops.stft(mono, kx_n, kx_hop, gaussian_dgt_window(kx_n, device=dev)).abs()
+    kx_phases = 2 * math.pi * torch.rand(kx_target.shape, device=dev,
+                                         generator=torch.Generator(device=dev).manual_seed(args.seed + 25))
+    w_kx_inv = T.DGT(n_fft=kx_n, hop_length=kx_hop).inv_window
+    synth_bound_x = bound_of(8.0 * kx_el + 4.0 * kx_audio, 2.5 * kx_n * math.log2(kx_n) * B * kx_T
+                             + B * kx_T * (40.0 * kx_F + 2.0 * kx_n))
+    synth_flops_x = 2.0 * kx_audio * kx_ov * 2.0 * kx_F + 22.0 * kx_el    # the product this route runs
 
     def lib_dgt_spec(x):
         return torch.stft(x, N_FFT, HOP, window=dgt_f.window, center=True, pad_mode="reflect",
@@ -6166,6 +6315,9 @@ def main() -> int:
 
     def lib_istft_y():
         return torch.istft(torch.polar(ky_target, ky_phases).transpose(-2, -1), ky_n, ky_hop, window=w_ky_inv)
+
+    def lib_istft_x():
+        return torch.istft(torch.polar(kx_target, kx_phases).transpose(-2, -1), kx_n, kx_hop, window=w_kx_inv)
 
     def whole_inversion():
         return pghi_kernel.pghi_invert_fused(dgt_target, gamma, N_FFT, HOP, dgt_f.inv_window,
@@ -6313,16 +6465,26 @@ def main() -> int:
                  kp_target, kp_phases, n_fft_p, hop_p, w_p_inv),
              library=lib_istft_p, bound=synth_bound_p, ceiling=ceiling_of(synth_flops_p),
              resources=kp_res.get("K")),
-        dict(key="K_synth_product", name="pghi_synthesize_product", front_end="product",
-             source=pghi_src + " (+ csrc/synth_ola.cuh)", replaces=pghi_tpu,
-             launches=counts["pghi_synthesize:product"],
+        dict(key="K_synth_smooth7", name="pghi_synthesize_smooth7", front_end="smooth",
+             source=pghi_src + " (+ csrc/fft_smem.cuh)", replaces=pghi_tpu,
+             launches=counts["pghi_synthesize:smooth7"],
              run=lambda: pghi_kernel.pghi_synthesize_fused(ky_target, ky_phases, ky_n, ky_hop, w_ky_inv),
              plain=lambda: pghi_kernel.pghi_synthesize_fused_reference(
                  ky_target, ky_phases, ky_n, ky_hop, w_ky_inv),
-             library=lib_istft_y, bound=synth_bound_y, ceiling=ceiling_of(synth_flops_y)),
+             library=lib_istft_y, bound=synth_bound_y, ceiling=ceiling_of(synth_flops_y),
+             resources=jk_res.get("K")),
+        dict(key="K_synth_product", name="pghi_synthesize_product", front_end="product",
+             source=pghi_src + " (+ csrc/synth_ola.cuh)", replaces=pghi_tpu,
+             launches=counts["pghi_synthesize:product"],
+             run=lambda: pghi_kernel.pghi_synthesize_fused(kx_target, kx_phases, kx_n, kx_hop, w_kx_inv),
+             plain=lambda: pghi_kernel.pghi_synthesize_fused_reference(
+                 kx_target, kx_phases, kx_n, kx_hop, w_kx_inv),
+             library=lib_istft_x, bound=synth_bound_x, ceiling=ceiling_of(synth_flops_x)),
     ]
-    require(pghi_kernel.synth_route(n_fft_p, hop_p) == "smooth" and pghi_kernel.synth_route(ky_n, ky_hop) == "product",
-            "phase 5: K's synthesis must be smooth at 768/256 and product at 896/224")
+    require(pghi_kernel.synth_route(n_fft_p, hop_p) == pghi_kernel.synth_route(ky_n, ky_hop) == "smooth"
+            and pghi_kernel.synth_route(kx_n, kx_hop) == "product",
+            "phase 5: K's synthesis must be smooth at 768/256 and 896/224 (its radix-7 instance) and product at "
+            "1408/352")
     # K's smooth synthesis at 1200/300 too (a line, not a row): the same
     # clips, kernel against the library call, back to back
     kq_w = gaussian_dgt_window(1200, device=dev)
@@ -6503,10 +6665,11 @@ def main() -> int:
     # + 2 overlap frames (the halo recomputed) and frames_rfft of the tile's
     # frames (fft_design_flops each), mag * angles and the momentum update
     # (12 per bin) and the envelope division; its smooth route (768/256 here,
-    # on the same clips) the same with smooth_design_flops.  The product
-    # route (896/224, 2^7 7) runs, per block of R chunks and tile_t frames,
-    # the synthesis product (R chunks x overlap x Kp x hop) and the analysis
-    # product (tile_t frames x n_fft x 2 x 128-column tiles).
+    # on the same clips) the same with smooth_design_flops, its radix-7
+    # instance (896/224, 2^7 7) likewise.  The product route (1408/352, 2^7
+    # 11) runs, per block of R chunks and tile_t frames, the synthesis product
+    # (R chunks x overlap x Kp x hop) and the analysis product (tile_t frames
+    # x n_fft x 2 x 128-column tiles).
     def j_state(shape, seed):
         jg = torch.Generator(device=dev).manual_seed(seed)
         jph = 2 * math.pi * torch.rand(shape, generator=jg, device=dev)
@@ -6537,11 +6700,23 @@ def main() -> int:
     jy_step, _, _ = glstep.make_gl_momentum_step_fullk(jy_target, n_fft_y, hop_y, w_jy, mom)
     jy_env = glstep._env_rows(Ty, n_fft_y, hop_y, w_jy)
     jy_route, jy_rows, jy_tile, _ = glstep._fullk_plan(n_fft_y, hop_y)
-    require(jp_route == "smooth" and jy_route == "product", "phase 5: J must be smooth at 768/256, product at 896/224")
-    jy_flops = 2.0 * B * -(-Ty // jy_tile) * (jy_rows * ov_y * pghi_kernel._k_padded(Fy) * hop_y
-                                              + jy_tile * n_fft_y * 2 * 128 * -(-Fy // 128)) + 10.0 * el_y
+    jy_blocks = B * -(-Ty // jy_tile)
+    jy_flops = (smooth_design_flops(n_fft_y, jy_blocks * (jy_tile + 2 * ov_y)) + smooth_design_flops(n_fft_y, B * Ty)
+                + 12.0 * el_y + float(B * (Ty + ov_y - 1) * hop_y))
     jy_bytes = 9.0 * 4 * el_y + 4.0 * (Ty + ov_y - 1) * hop_y
     jy_need = 2 * fft_y + B * Ty * (3.0 * n_fft_y + 12.0 * Fy)
+    w_jx = gaussian_dgt_window(n11, device=dev)
+    jx_target = att.ops.stft(mono, n11, hop11, w_jx).abs()
+    jx_st = j_state(jx_target.shape, args.seed + 55)
+    jx_step, _, _ = glstep.make_gl_momentum_step_fullk(jx_target, n11, hop11, w_jx, mom)
+    jx_env = glstep._env_rows(T11, n11, hop11, w_jx)
+    jx_route, jx_rows, jx_tile, _ = glstep._fullk_plan(n11, hop11)
+    require(jp_route == jy_route == "smooth" and jx_route == "product",
+            "phase 5: J must be smooth at 768/256 and 896/224 (its radix-7 instance), product at 1408/352")
+    jx_flops = 2.0 * B * -(-T11 // jx_tile) * (jx_rows * ov11 * pghi_kernel._k_padded(F11) * hop11
+                                               + jx_tile * n11 * 2 * 128 * -(-F11 // 128)) + 10.0 * el11
+    jx_bytes = 9.0 * 4 * el11 + 4.0 * (T11 + ov11 - 1) * hop11
+    jx_need = 2 * fft11 + B * T11 * (3.0 * n11 + 12.0 * F11)
 
     def lib_gl_fullk(target, st, n_fft, hop, w):
         a = torch.complex(st[0], st[1])
@@ -6691,15 +6866,24 @@ def main() -> int:
                                                                    w_jp, mom),
              library=lambda: lib_gl_fullk(jp_target, jp_st, n_fft_p, hop_p, w_jp),
              bound=bound_of(jp_bytes, jp_need), ceiling=ceiling_of(jp_flops), resources=res_j),
-        dict(key="J_product", name="gl_momentum_fullk_product", front_end="product",
-             source="acids_transforms_tpu_torch/csrc/glstep_fullk.cu (+ csrc/synth_ola.cuh, csrc/dft_common.cuh)",
+        dict(key="J_smooth7", name="gl_momentum_fullk_smooth7", front_end="smooth",
+             source="acids_transforms_tpu_torch/csrc/glstep_fullk.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:571",
-             launches=counts["gl_momentum_fullk:product"],
+             launches=counts["gl_momentum_fullk:smooth7"],
              run=lambda: jy_step(*jy_st),
              plain=lambda: glstep.gl_momentum_step_fullk_reference(jy_target, *jy_st, jy_env, n_fft_y, hop_y,
                                                                    w_jy, mom),
              library=lambda: lib_gl_fullk(jy_target, jy_st, n_fft_y, hop_y, w_jy),
-             bound=bound_of(jy_bytes, jy_need), ceiling=ceiling_of(jy_flops)),
+             bound=bound_of(jy_bytes, jy_need), ceiling=ceiling_of(jy_flops), resources=jk_res.get("J")),
+        dict(key="J_product", name="gl_momentum_fullk_product", front_end="product",
+             source="acids_transforms_tpu_torch/csrc/glstep_fullk.cu (+ csrc/synth_ola.cuh, csrc/dft_common.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/glstep.py:571",
+             launches=counts["gl_momentum_fullk:product"],
+             run=lambda: jx_step(*jx_st),
+             plain=lambda: glstep.gl_momentum_step_fullk_reference(jx_target, *jx_st, jx_env, n11, hop11, w_jx,
+                                                                   mom),
+             library=lambda: lib_gl_fullk(jx_target, jx_st, n11, hop11, w_jx),
+             bound=bound_of(jx_bytes, jx_need), ceiling=ceiling_of(jx_flops)),
     ]
     # ---- the streaming sessions at phase 4f's shape (64 mono sessions of
     # 4 s, 688 frames each).  Bounds: R reads the signal and writes the
@@ -7514,7 +7698,8 @@ def main() -> int:
         "product (b2b ms): " + "; ".join(
             f"{k} {' / '.join(f'{v:.3f}' for v in turns[('product', k)])} -> "
             f"{' / '.join(f'{v:.3f}' for v in turns[('smooth', k)])}" for k in "CDIJ"))
-    # C and J on the smooth route under every plan (reported, not gated)
+    # C and J on the smooth route under every plan, J on its radix-7
+    # instance too (reported, not gated)
     for label, r in gl_plan_sweep(mono, args.repeats).items():
         log(f"  GL smooth plan sweep {label} (b2b ms; frames x FFTs): " + "; ".join(
             f"{p['tile']} x {p['teams']} {p['ms']:.3f}" for p in r["rows"])

@@ -273,12 +273,13 @@ def test_route_rule():
         assert PK._decode_plan(n, hop)[1] > 0 and PK._decode_plan(n, hop, PK.PROJECT_SYN_ROWS)[1] > 0
         assert PK._polish_plan(n, hop, 20) is None
     # the other kernels keep fft_covers_smooth: their product / factored routes at 896/224 and 1344/336
-    # (the magnitude kernels E, F, A and B take their radix-7 instance there, G and H do not)
+    # (the magnitude kernels E, F, A and B, K's synthesis and J take their radix-7 instance there, G, H,
+    # C, D and I do not)
     for n, hop in SESSION_SHAPES:
         assert SP.melspec_route(n, "melspec") == "smooth" and SP.melspec_route(n, "repr") == "other"
-        assert GS.gl_step_route(n, hop) == "product" and PGK.synth_route(n, hop) == "product"
+        assert GS.gl_step_route(n, hop) == "product" and PGK.synth_route(n, hop) == "smooth"
     assert SP._kernel_plan(896, 224, None)[1] > 0 and SP._repr_plan(896, 224, None, False, "if", True)[1] == 0
-    assert GS._fullk_plan(896, 224)[0] == "product"
+    assert GS._fullk_plan(896, 224)[0] == "smooth"
     for n, hop in PRODUCT_4032:
         assert PK.session_route(n, "encode") == "smooth" and PK.session_route(n, "roundtrip", hop) == "product"
         assert PK._roundtrip_fft_plan(n, hop, True) is None

@@ -227,7 +227,8 @@ def test_route_rule():
     assert PG._fullk_plan(1024, 256) == ("fft", 60, 56, 4)
     assert PG._fullk_plan(4096, 512)[0] == "fft" and PG._fullk_plan(2048, 256)[0] == "fft"
     assert PG._fullk_plan(768, 256)[0] == "smooth" and PG._fullk_plan(8192, 2048)[0] == "product"
-    assert PG._fullk_plan(896, 224)[0] == "product"                # 2^7 7: neither the FFT nor the smooth route
+    assert PG._fullk_plan(896, 224)[0] == "smooth"                 # 2^7 7: the smooth route's radix-7 instance
+    assert PG._fullk_plan(1408, 352)[0] == "product"               # 2^7 11: neither the FFT nor the smooth route
     assert PG._fullk_plan(8192, 2048)[3] == 1056                   # slabs of 1056 columns
     assert PK._roundtrip_plan(1024, 256) == (24, 4)
     # 1200 and 960 (5-smooth) take the smooth route; 1408 = 2^7 11 the product;

@@ -5,9 +5,10 @@
 ``csrc/glstep_fullk.cu:gl_fullk_fft_kernel<true>`` (the mixed-radix
 ``frames_irfft<true>`` / ``frames_rfft<true>``), whose plain versions are
 ``ops/cuda/glstep.py:_project_fft(..., smooth=True)`` and
-``gl_momentum_step_fullk_reference`` on the smooth schedule.  896 = 2^7 7 and
-448 = 2^6 7 keep the product route.  ``chip_smoke.py`` holds the kernels to
-these plain versions on the card.
+``gl_momentum_step_fullk_reference`` on the smooth schedule.  At 896 = 2^7 7
+and 448 = 2^6 7 C, D and I keep the product route and J takes its radix-7
+instance (``tests/test_torch_gl_pghi_seven.py``).  ``chip_smoke.py`` holds
+the kernels to these plain versions on the card.
 
 Tolerances, and why:
 
@@ -268,14 +269,19 @@ def test_the_plain_versions_take_the_smooth_schedule():
 
 
 def test_the_route_reads_n_fft_and_hop():
-    """smooth at 768 (and every even 5-smooth n_fft the gates take), product
-    at 896 and 448 (2^k 7), fft at 512; any chain off the product route."""
-    for n_fft, hop, route in ((768, 192, "smooth"), (768, 256, "smooth"), (896, 224, "product"),
-                              (448, 112, "product"), (512, 128, "fft"), (1024, 256, "fft")):
-        assert pk.gl_step_route(n_fft, hop) == route, (n_fft, hop)
-        assert pk._fullk_plan(n_fft, hop)[0] == route, (n_fft, hop)
-        assert (pk.gl_max_chain(n_fft, hop, 64) == 64) == (route != "product")
-    assert pk._step_fft_plan(896, 224) is None and pk._pick_fullk_fft_block(896, 224) is None
+    """Per kernel: C, D and I smooth at 768 (and every even 5-smooth n_fft
+    the gates take), product at 896 and 448 (2^k 7), fft at 512, any chain
+    off the product route; J likewise, but smooth at 896 and 448 too (its
+    radix-7 instance) and product at 1408 (2^7 11)."""
+    for n_fft, hop, route_cdi, route_j in ((768, 192, "smooth", "smooth"), (768, 256, "smooth", "smooth"),
+                                           (896, 224, "product", "smooth"), (448, 112, "product", "smooth"),
+                                           (1408, 352, "product", "product"), (512, 128, "fft", "fft"),
+                                           (1024, 256, "fft", "fft")):
+        assert pk.gl_step_route(n_fft, hop) == route_cdi, (n_fft, hop)
+        assert (pk.gl_max_chain(n_fft, hop, 64) == 64) == (route_cdi != "product")
+        assert pk._fullk_plan(n_fft, hop)[0] == route_j, (n_fft, hop)
+    assert pk._step_fft_plan(896, 224) is None and pk._pick_fullk_fft_block(896, 224) == (28, 24, 4)
+    assert pk._step_fft_plan(1408, 352) is None and pk._pick_fullk_fft_block(1408, 352) is None
     assert pk._step_fft_plan(768, 192) == (56, 4) and pk._fullk_plan(768, 256) == ("smooth", 15, 12, 4)
     n_shapes = 0
     for n_fft in range(64, 4097, 2):

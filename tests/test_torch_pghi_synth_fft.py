@@ -16,7 +16,7 @@ which repeats the kernel's schedule where ``frames_fft.fft_covers(n_fft)``:
   ones of the same float32 value);
 * the same result whatever block the card cuts the clip into (a block-by-block
   emulation of the kernel, halo and partners included, bit for bit);
-* the product route at 896/224, no route counted on the CPU, the block plans.
+* the product route at 1408/352, no route counted on the CPU, the block plans.
 
 On the card ``chip_smoke.py`` holds the kernel against this plain version.
 """
@@ -129,9 +129,9 @@ def test_fft_schedule_does_not_depend_on_the_block(rows):
 
 
 def test_product_route_at_768_192():
-    """The product route, at 896/224 (2^7 7; 768/192 takes the smooth
-    route)."""
-    n_fft, hop = 896, 224
+    """The product route, at 1408/352 (2^7 11; 768/192 takes the smooth
+    route, 896/224 its radix-7 instance)."""
+    n_fft, hop = 1408, 352
     assert PK.synth_route(n_fft, hop) == "product" and PK.pghi_fused_available(n_fft, hop)
     dgt, mag, ang, w, _ = _dgt(n_fft, hop, tones(9000, [(220,), (440, 660)]))
     m, a = torch.as_tensor(mag), torch.as_tensor(ang)
