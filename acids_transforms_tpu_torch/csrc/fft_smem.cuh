@@ -30,29 +30,33 @@
 //       the synthesis of _session_pghi_gl_kernel's projection (O): frames_irfft
 //   stream_step.cu:gl_polish_fft_kernel            <- ops/pallas/stream_step.py:
 //       _session_pghi_gl_kernel's projections (O): frames_irfft, then frames_rfft
+//   stream_step.cu:gl_project_analysis_fft_kernel  <- the analysis of those
+//       projections where the polish's block cannot hold the grid: frames_rfft
 // and, as the mixed-radix route (template argument kSmooth = true) where
 // fft_covers_smooth() takes n_fft (even, 2^a 3^b 5^c, 64 to 4096, no power of
 // two: 1200, 960, 768, 400, 1920, ...), in R, the magnitude encode of N, L, M,
 // the decodes P, S and O's projection synthesis, E and F (so A and B), G and
 // H (full-K and under the taps' window), the Griffin-Lim steps J, C, D and I,
-// K's synthesis and O's polish (session_encode_kernel<., true, true>,
+// K's synthesis, O's polish and O's two-launch analysis (session_encode_kernel<., true, true>,
 // session_roundtrip_fft_kernel<., true>, session_decode_fft_kernel<., true>,
 // spectral.cu:block_magnitudes<., kFrontSmooth>, spectral.cu:
 // repr_forward_kernel / repr_stats_kernel<., kFrontSmooth>,
 // glstep_fullk.cu:gl_fullk_fft_kernel<true>, glstep.cu:gl_step_fft_kernel<true>,
 // pghi.cu:pghi_synthesize_fft_kernel<true>, stream_step.cu:gl_polish_fft_kernel<.,
-// true>); O's analysis keeps its product route at those sizes.  With a
+// true>, stream_step.cu:gl_project_analysis_fft_kernel<true, false>).  With a
 // radix-7 stage as well (template argument kSeven = true) where
 // fft_covers_smooth7() takes n_fft and n_fft has a factor 7 (even, 2^a 3^b 5^c
 // 7^d: 896, 1344, 1680, 1764, ...), in R, the magnitude encode of N, L, M,
 // the decodes P, S and O's projection synthesis, E and F (so A and B), the
-// full-K Griffin-Lim step J and K's synthesis (session_encode_kernel<., true,
-// true, true>, session_roundtrip_fft_kernel<., true, true>,
-// session_decode_fft_kernel<., true, true>, spectral.cu:
-// block_magnitudes<., kFrontSmooth7>, glstep_fullk.cu:gl_fullk_fft_kernel<true,
-// true>, pghi.cu:pghi_synthesize_fft_kernel<true, true>); every other kernel
-// (G, H, C, D, I) keeps its product or factored route at those sizes (O's
-// polish its two-launch projection).
+// full-K Griffin-Lim step J, K's synthesis, O's polish and O's two-launch
+// analysis (session_encode_kernel<., true, true, true>,
+// session_roundtrip_fft_kernel<., true, true>, session_decode_fft_kernel<.,
+// true, true>, spectral.cu:block_magnitudes<., kFrontSmooth7>,
+// glstep_fullk.cu:gl_fullk_fft_kernel<true, true>,
+// pghi.cu:pghi_synthesize_fft_kernel<true, true>, stream_step.cu:
+// gl_polish_fft_kernel<., true, true>, gl_project_analysis_fft_kernel<true,
+// true>); every other kernel (G, H, C, D, I) keeps its product or factored
+// route at those sizes.
 //
 // What they compute.  frames_rfft: X_r[k] = sum_n w[n] xs[r hop + n] e^{-2 pi
 // i n k / n} for k <= n / 2 of every frame r < n_frames of a sample buffer
@@ -149,8 +153,8 @@
 //   stage has b - q = 0 for every butterfly, so it turns nothing and writes
 //   where it reads.  1200 = 5 5 3 4 4: five trips; 1344 = 7 3 4 4 4.
 // * the radix-7 stage is compiled only into the instances that take a
-//   factor 7 (kSeven: R's, L's, the decode's, E's, F's, J's and K's
-//   synthesis's): fft_passes_smooth<false> holds no
+//   factor 7 (kSeven: R's, L's, the decode's, E's, F's, J's, K's
+//   synthesis's, O's polish's and O's analysis's): fft_passes_smooth<false> holds no
 //   radix-7 loop and fft_smooth_plan<false> no count of sevens, so every
 //   other mixed-radix instance compiles as it did before the stage existed.
 //   Its butterfly (fft_dft<7>, the symmetric form of frames_fft._dft7) holds

@@ -24,15 +24,19 @@
 //                                       its kSmooth instances where fft_covers_smooth(n_fft),
 //                                       its kSeven instances where fft_covers_smooth7(n_fft)
 //                                       and n_fft has a factor 7
-//   gl_polish_fft_kernel<., .>       <- the Griffin-Lim polish of _session_pghi_gl_kernel (O):
+//   gl_polish_fft_kernel<., ., .>    <- the Griffin-Lim polish of _session_pghi_gl_kernel (O):
 //                                       every projection of a chunk in one launch, where n_fft
-//                                       is a power of two from 64 to 4096 (kSmooth = false) or
-//                                       fft_covers_smooth(n_fft) (kSmooth) and the grid fits
-//   gl_project_analysis_kernel       <- the projection of _session_pghi_gl_kernel (O), its
-//                                       analysis and atan2; with session_decode_kernel<., false>
-//                                       as its synthesis (every other shape); pghi.cu's
-//                                       recurrence (seeded) is O's seed:
-//                                       make_fused_pghi_gl_roundtrip / _invert
+//                                       is a power of two from 64 to 4096 (kSmooth = false),
+//                                       fft_covers_smooth(n_fft) (kSmooth) or fft_covers_smooth7(n_fft)
+//                                       with a factor 7 (kSeven), and the grid fits
+//   gl_project_analysis_fft_kernel<., .>
+//                                    <- the projection of _session_pghi_gl_kernel (O), its
+//                                       analysis and atan2, where the polish's block cannot hold
+//                                       the grid, on the FFT and smooth routes (the encode's);
+//   gl_project_analysis_kernel       <- the same on the product route (n_fft neither a power of
+//                                       two nor 7-smooth); with the decode's kernel of its route
+//                                       as its synthesis; pghi.cu's recurrence (seeded) is O's
+//                                       seed: make_fused_pghi_gl_roundtrip / _invert
 //
 // What they compute.  A fresh session's frames are the contiguous slices
 // [t hop, t hop + n_fft) of the row-padded signal: (overlap - 1) hop zero
@@ -110,15 +114,18 @@
 // overlap - 1 zero frames).  Within a chunk the iterations do not depend on
 // the host (the pinned and frozen rows are fixed for the chunk) and the
 // sessions are independent, so where n_fft is a power of two from 64 to 4096
-// or fft_covers_smooth(n_fft) and the block holds the grid, the polish is one
-// launch, gl_polish_fft_kernel (kSmooth: its mixed-radix instance): a block
-// per session runs
+// or fft_covers_smooth7(n_fft) and the block holds the grid, the polish is one
+// launch, gl_polish_fft_kernel (kSmooth: its mixed-radix instance, kSeven its
+// radix-7 one): a block per session runs
 // every iteration with the grid's overlap-add signal (and, where it fits, the
 // grid's magnitudes and phases) in shared memory, as the TPU kernel runs its
 // iterations in VMEM.  Elsewhere each iteration is two launches: P's synthesis
 // into the grid's overlap-add signal in device memory (narrow blocks, so that
-// a session fills several SMs) and gl_project_analysis_kernel (blocks of one
-// session and one 128-bin tile).  The commit and the carries are a few small
+// a session fills several SMs) and the analysis: on the FFT and smooth routes
+// gl_project_analysis_fft_kernel (blocks of a session's even group of frames,
+// frames_rfft with the polish's pairs, so that iters two-launch projections
+// are the polish to the bit), on the product route gl_project_analysis_kernel
+// (blocks of one session and one 128-bin tile).  The commit and the carries are a few small
 // tensor operations, and P's synthesis of every committed frame ends the
 // session.  The phases of the grid stay in one device array that the polish
 // updates in place.
@@ -598,17 +605,22 @@ __global__ void __launch_bounds__(kThreads, 2) session_decode_fft_kernel(Session
 // O's projection, analysis half (the synthesis half is P's kernel with the
 // basis divided by overlap instead of the OverlapAdd gain).  y (B, Ly) holds
 // each session's overlap-add of its extended grid's frames; grid frame f is
-// y[f hop, f hop + n_fft).  A block owns one session and one 128-bin column
-// tile of the frames f0 .. Tx - 1 (f0 = gl_context: the pinned rows are never
-// recomputed) and writes phase[b, f, k] = atan2(im, re) of every such frame
-// outside [keep_lo, keep_hi), the frozen rows, which keep their value.
+// y[f hop, f hop + n_fft).  Both kernels write phase[b, f, k] = atan2(im, re)
+// of every frame f0 .. Tx - 1 (f0 = gl_context: the pinned rows are never
+// recomputed) outside [keep_lo, keep_hi), the frozen rows, which keep their
+// value.  The product route (gl_project_analysis_kernel, n_fft neither a power
+// of two nor 7-smooth): a block owns one session and one 128-bin column tile
+// of all those frames (at most 40), the full-K product.
 struct GlProjectArgs {
     const float* y;       // (B, Ly)
-    const float* wc;      // (Kn, F) window-folded analysis basis, cos; zero rows past n_fft
-    const float* ws;      //                                      -sin
+    const float* wc;      // product route: (Kn, F) window-folded analysis basis, cos; zero rows past n_fft
+    const float* ws;      //                                                       -sin
+    const float* win;     // FFT and smooth routes: (n_fft,) analysis window
+    const float* fft_tw;  //                        (2, n_fft) twiddle table
     float* phase;         // (B, Tp, F), rows f0 .. Tx - 1 updated in place
     long long Ly;
     int Tp, Tx, f0, keep_lo, keep_hi, F, hop, Kn, n_ct;
+    int n_fft, rows, teams;  // FFT and smooth routes; n_ct is then the blocks a session
 };
 
 __global__ void __launch_bounds__(kThreads) gl_project_analysis_kernel(GlProjectArgs a) {
@@ -630,10 +642,38 @@ __global__ void __launch_bounds__(kThreads) gl_project_analysis_kernel(GlProject
                    ct, ct + 1);
 }
 
+// The FFT and smooth routes (n_fft a power of two from 64 to 4096, or
+// fft_covers_smooth7(n_fft); kSmooth / kSeven as the encode's): the encode's
+// FFT-route block on the grid's signal.  A block owns `rows` frames (even) of
+// one session, f0 + g rows .. (frame f = y[f hop, f hop + n_fft), no zero
+// ring), and runs frames_rfft over them under the analysis window: pairs (2j,
+// 2j + 1) counted from f0, the pairs of the polish's analysis, so every bin
+// comes out as the polish computes it and one session's frames spread over
+// several SMs (5 blocks of 8 frames at 4096/1024 and 40 frames).  The grid's
+// length is not bounded by a block: samples are read in by the block's frames.
+template <bool kSmooth, bool kSeven>
+__global__ void __launch_bounds__(kThreads, 2) gl_project_analysis_fft_kernel(GlProjectArgs a) {
+    extern __shared__ __align__(16) float smem[];
+    const long long b = blockIdx.x / a.n_ct;
+    const int t0 = a.f0 + (int)(blockIdx.x - b * a.n_ct) * a.rows;
+    const int n_rows = min(a.rows, a.Tx - t0);
+    const int n_fft = a.n_fft, F = a.F;
+    float* xs = smem;
+    const FftSmem fs = carve_fft<kSmooth, kSeven>(xs + (size_t)(a.rows - 1) * a.hop + n_fft, n_fft);  // 16-byte aligned
+    fft_stage<kSmooth, kSeven>(a.win, a.fft_tw, fs, n_fft);  // load_session_samples' barrier covers it
+    load_session_samples(a.y + (size_t)b * a.Ly, a.Ly, (long long)t0 * a.hop, 0, (n_rows - 1) * a.hop + n_fft, xs);
+    float* out = a.phase + ((size_t)b * a.Tp + t0) * F;
+    const int lo = a.keep_lo - t0, hi = a.keep_hi - t0;
+    frames_rfft<kSmooth, kSeven>(xs, n_rows, a.hop, n_fft, fs, a.teams, [&](int r, int k, float re, float im) {
+        if (r < lo || r >= hi) out[(size_t)r * F + k] = atan2f(im, re);
+    });
+}
+
 // O's polish on the FFT route (n_fft a power of two from 64 to 4096) and,
 // with kSmooth, on the smooth route (fft_covers_smooth(n_fft): frames_irfft's
 // and frames_rfft's mixed-radix stages, twiddles j < fft_smooth_table(n), wsyn
-// with the 1 / n fold rounded once from float64): one
+// with the 1 / n fold rounded once from float64; with kSeven the radix-7
+// instance, fft_covers_smooth7(n_fft) and n_fft with a factor 7): one
 // block per session runs all `iters` projections of its grid of Tp = Tx +
 // overlap - 1 frames (the last overlap - 1 of zero magnitude).  Each:
 // * synthesis: frames_irfft of every grid frame, bins mag * (cos, sin)(phase)
@@ -676,7 +716,7 @@ __host__ __device__ inline size_t polish_smem_floats(int Tp, int hop, int n_fft,
            (resident ? 2 * (size_t)Tp * F : 0);
 }
 
-template <bool kResident, bool kSmooth>
+template <bool kResident, bool kSmooth, bool kSeven = false>
 __global__ void __launch_bounds__(kThreads, 1) gl_polish_fft_kernel(GlPolishArgs a) {
     extern __shared__ __align__(16) float smem[];
     const long long b = blockIdx.x;
@@ -684,13 +724,13 @@ __global__ void __launch_bounds__(kThreads, 1) gl_polish_fft_kernel(GlPolishArgs
     const int n = ov * hop;
     const int n_out = Tp * hop;
     float* y = smem;  // 16-byte aligned: hop % 4 == 0
-    const FftSmem fs = carve_fft<kSmooth>(y + (size_t)n_out, n);
+    const FftSmem fs = carve_fft<kSmooth, kSeven>(y + (size_t)n_out, n);
     float* wsyn = fs.buf + (size_t)a.teams * fft_buf_floats_of<kSmooth>(n);
     float* mag_s = wsyn + n;
     float* ph_s = mag_s + (size_t)Tp * F;
     const float* mag_g = a.mag + (size_t)b * Tp * F;
     float* ph_g = a.phase + (size_t)b * Tp * F;
-    fft_stage<kSmooth>(a.win, a.fft_tw, fs, n);
+    fft_stage<kSmooth, kSeven>(a.win, a.fft_tw, fs, n);
     for (int i = threadIdx.x; i < n; i += kThreads) wsyn[i] = __ldg(a.wsyn + i);
     if constexpr (kResident) {
         for (int i = threadIdx.x; i < Tp * F; i += kThreads) {
@@ -712,7 +752,7 @@ __global__ void __launch_bounds__(kThreads, 1) gl_polish_fft_kernel(GlPolishArgs
         for (int i = threadIdx.x; i < n_out; i += kThreads) y[i] = 0.0f;
         // frames_irfft starts with a barrier: y is zero and the last
         // analysis's phases are visible; it ends with one
-        frames_irfft<kSmooth>(
+        frames_irfft<kSmooth, kSeven>(
             Tp + m, ov, n, fs, wsyn, a.teams,
             [&](int r, int k, float& re, float& im) {
                 const int f = r - m;
@@ -733,7 +773,7 @@ __global__ void __launch_bounds__(kThreads, 1) gl_polish_fft_kernel(GlPolishArgs
                 if (r >= m && pos < n_out) y[pos] = __fadd_rn(y[pos], v);
             });
         // frames_rfft starts with a barrier and ends with one
-        frames_rfft<kSmooth>(y + (size_t)ctx * hop, a.Tx - ctx, hop, n, fs, a.teams,
+        frames_rfft<kSmooth, kSeven>(y + (size_t)ctx * hop, a.Tx - ctx, hop, n, fs, a.teams,
                     [&](int r, int k, float re, float im) {
                         const int f = ctx + r;
                         if (f < lo || f >= hi) ph_out[f * F + k] = atan2f(im, re);
@@ -999,10 +1039,10 @@ int att_session_decode(const float* mag, const float* angles, const float* syn, 
     return (int)cudaGetLastError();
 }
 
-// O's projection analysis (see gl_project_analysis_kernel).  y (B, Ly) float32;
-// wc / ws as for R; phase (B, Tp, F), rows f0 .. Tx - 1 outside [keep_lo,
-// keep_hi) written.  Tx - f0 <= 40 frames; hop a multiple of 4.  Returns a
-// cudaError_t.
+// O's projection analysis on the product route (see
+// gl_project_analysis_kernel).  y (B, Ly) float32; wc / ws as for R; phase (B,
+// Tp, F), rows f0 .. Tx - 1 outside [keep_lo, keep_hi) written.  Tx - f0 <= 40
+// frames; hop a multiple of 4.  Returns a cudaError_t.
 int att_gl_project_analysis(const float* y, const float* wc, const float* ws, float* phase,
                             long long B, long long Ly, int Tp, int Tx, int f0, int keep_lo,
                             int keep_hi, int F, int hop, int Kn, void* stream) {
@@ -1023,12 +1063,56 @@ int att_gl_project_analysis(const float* y, const float* wc, const float* ws, fl
     return (int)cudaGetLastError();
 }
 
+// O's projection analysis on the FFT and smooth routes (see
+// gl_project_analysis_fft_kernel).  y (B, Ly) float32; phase (B, Tp, F), rows
+// f0 .. Tx - 1 outside [keep_lo, keep_hi) written; n_fft = overlap hop a power
+// of two from 64 to 4096 (1 <= teams <= 4096 / n_fft), or fft_covers_smooth7(
+// n_fft) (1 <= teams <= fft_smooth_max_teams; the radix-7 instance where n_fft
+// has a factor 7), F = n_fft / 2 + 1, window (n_fft,) the analysis window,
+// fft_tw (2, n_fft) = (cos, -sin)(2 pi j / n_fft); rows (even) frames a block;
+// hop a multiple of 4.  Returns a cudaError_t.
+int att_gl_project_analysis_fft(const float* y, const float* window, const float* fft_tw, float* phase,
+                                long long B, long long Ly, int Tp, int Tx, int f0, int keep_lo, int keep_hi,
+                                int F, int hop, int overlap, int rows, int teams, void* stream) {
+    using namespace att;
+    const int n_fft = overlap * hop;
+    const bool smooth = !fft_covers(n_fft);
+    const bool seven = smooth && n_fft % 7 == 0;
+    if (B < 1 || hop % 4 != 0 || overlap < 1 || overlap > 8 || F != n_fft / 2 + 1 ||
+        (smooth && !fft_covers_smooth7(n_fft)) || teams < 1 ||
+        teams > (smooth ? fft_smooth_max_teams(n_fft) : fft_max_teams(n_fft)) || rows < 2 || rows % 2 != 0 ||
+        f0 < 0 || Tx - f0 < 1 || Tx > Tp) {
+        return (int)cudaErrorInvalidValue;
+    }
+    GlProjectArgs a = {};
+    a.y = y; a.win = window; a.fft_tw = fft_tw; a.phase = phase;
+    a.Ly = Ly; a.Tp = Tp; a.Tx = Tx; a.f0 = f0; a.keep_lo = keep_lo; a.keep_hi = keep_hi;
+    a.F = F; a.hop = hop; a.n_fft = n_fft; a.rows = rows; a.teams = teams;
+    a.n_ct = (Tx - f0 + rows - 1) / rows;
+    const size_t smem = encode_fft_smem_floats(rows, hop, n_fft, teams) * sizeof(float);
+    const dim3 grid((unsigned)(B * a.n_ct));
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
+#define ATT_LAUNCH_ANA(SMOOTH, SEVEN)                                                         \
+    do {                                                                                      \
+        err = session_allow_smem(gl_project_analysis_fft_kernel<SMOOTH, SEVEN>, smem);        \
+        if (err != cudaSuccess) return (int)err;                                              \
+        gl_project_analysis_fft_kernel<SMOOTH, SEVEN><<<grid, kThreads, smem, s>>>(a);        \
+    } while (0)
+    if (seven) ATT_LAUNCH_ANA(true, true);
+    else if (smooth) ATT_LAUNCH_ANA(true, false);
+    else ATT_LAUNCH_ANA(false, false);
+#undef ATT_LAUNCH_ANA
+    return (int)cudaGetLastError();
+}
+
 // O's polish (see gl_polish_fft_kernel).  mag, phase (B, Tp, F) float32, Tp =
 // Tx + overlap - 1; phase rows ctx .. Tx - 1 outside [keep_lo, keep_hi)
 // updated in place after `iters` projections, every other row untouched.
 // n_fft = overlap hop a power of two from 64 to 4096 (1 <= teams <= 4096 /
-// n_fft), or on the smooth route where fft_covers_smooth(n_fft) (1 <= teams
-// <= fft_smooth_max_teams(n_fft)), F = n_fft / 2 + 1, hop a multiple of 4;
+// n_fft), or on the smooth route where fft_covers_smooth7(n_fft) (1 <= teams
+// <= fft_smooth_max_teams(n_fft); the radix-7 instance where n_fft has a
+// factor 7), F = n_fft / 2 + 1, hop a multiple of 4;
 // window (n_fft,) the analysis window, wsyn (n_fft,) the synthesis window /
 // overlap / n_fft (frames_fft.irfft_window), fft_tw (2, n_fft) = (cos,
 // -sin)(2 pi j / n_fft); resident != 0 holds the grid in shared memory.
@@ -1039,8 +1123,9 @@ int att_gl_polish(const float* mag, float* phase, const float* window, const flo
     using namespace att;
     const int n_fft = overlap * hop;
     const bool smooth = !fft_covers(n_fft);
+    const bool seven = smooth && n_fft % 7 == 0;
     const int max_teams = smooth ? fft_smooth_max_teams(n_fft) : fft_max_teams(n_fft);
-    if (!session_args_ok(B, Tp, F, hop, overlap) || (smooth && !fft_covers_smooth(n_fft)) ||
+    if (!session_args_ok(B, Tp, F, hop, overlap) || (smooth && !fft_covers_smooth7(n_fft)) ||
         F != n_fft / 2 + 1 || teams < 1 || teams > max_teams || ctx < 0 || ctx >= Tx ||
         Tx + overlap - 1 != Tp || iters < 1) {
         return (int)cudaErrorInvalidValue;
@@ -1052,16 +1137,18 @@ int att_gl_polish(const float* mag, float* phase, const float* window, const flo
     const size_t smem = polish_smem_floats(Tp, hop, n_fft, teams, resident != 0) * sizeof(float);
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
-#define ATT_LAUNCH_POL(RES, SMOOTH)                                                \
-    do {                                                                           \
-        err = session_allow_smem(gl_polish_fft_kernel<RES, SMOOTH>, smem);         \
-        if (err != cudaSuccess) return (int)err;                                   \
-        gl_polish_fft_kernel<RES, SMOOTH><<<(unsigned)B, kThreads, smem, s>>>(a);  \
+#define ATT_LAUNCH_POL(RES, SMOOTH, SEVEN)                                                \
+    do {                                                                                  \
+        err = session_allow_smem(gl_polish_fft_kernel<RES, SMOOTH, SEVEN>, smem);         \
+        if (err != cudaSuccess) return (int)err;                                          \
+        gl_polish_fft_kernel<RES, SMOOTH, SEVEN><<<(unsigned)B, kThreads, smem, s>>>(a);  \
     } while (0)
-    if (smooth) {
-        if (resident) ATT_LAUNCH_POL(true, true); else ATT_LAUNCH_POL(false, true);
+    if (seven) {
+        if (resident) ATT_LAUNCH_POL(true, true, true); else ATT_LAUNCH_POL(false, true, true);
+    } else if (smooth) {
+        if (resident) ATT_LAUNCH_POL(true, true, false); else ATT_LAUNCH_POL(false, true, false);
     } else {
-        if (resident) ATT_LAUNCH_POL(true, false); else ATT_LAUNCH_POL(false, false);
+        if (resident) ATT_LAUNCH_POL(true, false, false); else ATT_LAUNCH_POL(false, false, false);
     }
 #undef ATT_LAUNCH_POL
     return (int)cudaGetLastError();

@@ -269,6 +269,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         i, i, i, p,                      # F, hop, Kn, stream
     ]
     lib.att_gl_project_analysis.restype = i
+    lib.att_gl_project_analysis_fft.argtypes = [
+        p, p, p, p,                      # y, window, fft_tw, phase
+        ll, ll, i, i, i, i, i,           # B, Ly, Tp, Tx, f0, keep_lo, keep_hi
+        i, i, i, i, i, p,                # F, hop, overlap, rows, teams, stream
+    ]
+    lib.att_gl_project_analysis_fft.restype = i
     lib.att_gl_polish_smem_bytes.argtypes = [i, i, i, i, i]
     lib.att_gl_polish_smem_bytes.restype = ll
     lib.att_gl_polish.argtypes = [

@@ -9,25 +9,27 @@ Re(X_r[k] e^{2 pi i k i / n_fft})`` (``c_0 = c_{n/2} = 1``, else 2; ``wsyn``
 the synthesis window over ``n_fft``, :func:`irfft_window`), whose frames the
 caller overlap-adds in class order (:func:`overlap_add_classes`).  The
 session encode (R, the magnitude encode of N) and the full-K melspec and
-representation front ends (E, F, G, H) run the forward; K's synthesis the
-inverse; the full-K Griffin-Lim step (J) both; the streaming roundtrips (L,
-M) both in one team (``frames_roundtrip``), wherever :func:`fft_covers`
-takes ``n_fft``.  R, N's encode, L, M, the streaming decodes (P, S, O's
-projection synthesis), the full-K melspec forward and fit (E, F, and so
+representation front ends (E, F, G, H) and O's two-launch analysis run the
+forward; K's synthesis the inverse; the full-K Griffin-Lim step (J) and O's
+polish both; the streaming roundtrips (L, M) both in one team
+(``frames_roundtrip``), wherever :func:`fft_covers` takes ``n_fft``.  R,
+N's encode, L, M, the streaming decodes (P, S, O's projection synthesis),
+O's two-launch analysis, the full-K melspec forward and fit (E, F, and so
 A and B under the taps' own window), the representation forward and fit (G,
 H, full-K and under the taps' window), the Griffin-Lim steps (J, C, D, I),
 K's synthesis and O's polish also take the mixed-radix schedule wherever
 :func:`fft_covers_smooth` takes ``n_fft`` (even, ``2^a 3^b 5^c``, 64 to 4096,
 not a power of two: 1200, 960, 768, 400, 1920, ...; the Griffin-Lim steps,
 K's synthesis and the polish where their block fits too); R, N's encode, L,
-M, the streaming decodes (P, S, O's projection synthesis), the full-K
-melspec forward and fit (E, F, and so A and B), the full-K Griffin-Lim step
-J and K's synthesis also where :func:`fft_covers_smooth7` does (a factor 7
-as well: 896, 1344, 1680, 1764, ...; L, M, J and K's synthesis where their
-block fits, E and F where a tile does: not at 4032/2016), with a radix-7
-stage; every other ``n_fft`` keeps the window-folded products of
-``dft_common.cuh`` and ``synth_ola.cuh`` (and A, B, G and H their factored
-front end; O's polish the two-launch projection).
+M, the streaming decodes (P, S, O's projection synthesis), O's polish and
+two-launch analysis, the full-K melspec forward and fit (E, F, and so A and
+B), the full-K Griffin-Lim step J and K's synthesis also where
+:func:`fft_covers_smooth7` does (a factor 7 as well: 896, 1344, 1680, 1764,
+...; L, M, J, K's synthesis and the polish where their block fits, E and F
+where a tile does: not at 4032/2016), with a radix-7 stage; every other
+``n_fft`` keeps the window-folded products of ``dft_common.cuh`` and
+``synth_ola.cuh`` (and A, B, G and H their factored front end; O's polish
+the two-launch projection, its analysis a product).
 
 The schedule, which :func:`frames_rfft_reference` and
 :func:`frames_irfft_reference` repeat step for step:
@@ -93,11 +95,12 @@ TWO_BLOCKS_SMEM = SM_SMEM // 2 - 1024   # a block's share when two run on one SM
 def fft_covers(n_fft: int) -> bool:
     """Whether the FFT route takes ``n_fft``: a power of two from 64 to 4096.
     Elsewhere R, L, M, the decodes, E and F (with A and B), G and H, J, C, D,
-    I, K's synthesis and O's polish take the smooth route where
+    I, K's synthesis and O's polish and analysis take the smooth route where
     :func:`fft_covers_smooth` does (R, N's encode, L, M, the decodes P, S
-    and O's projection synthesis, E and F with A and B, J and K's synthesis
-    where :func:`fft_covers_smooth7` does), and the products (A, B, G and H the
-    factored front end, O's polish the two-launch projection) at every other
+    and O's projection synthesis, O's polish and analysis, E and F with A
+    and B, J and K's synthesis where :func:`fft_covers_smooth7` does), and
+    the products (A, B, G and H the factored front end, O's polish the
+    two-launch projection, its analysis a product) at every other
     ``n_fft``."""
     n = int(n_fft)
     return FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0

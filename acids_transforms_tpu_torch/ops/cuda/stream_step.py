@@ -56,17 +56,23 @@ to three kernel launches instead of a Python loop of small ops per chunk
   commit and the carries in small tensor operations; P's synthesis of every
   committed frame ends the session.  The polish is one launch a chunk where
   :func:`_polish_plan` takes the grid (``gl_polish_fft_kernel``, its
-  mixed-radix instance where ``fft_covers_smooth(n_fft)``, none with a
-  radix-7 stage: a block per session runs all ``gl_iterations`` projections
-  with the grid in shared memory, ``frames_irfft`` into an overlap-add
-  signal in shared memory, then ``frames_rfft`` of the re-framed rows and
-  ``atan2``; plain version
+  mixed-radix instance where ``fft_covers_smooth7(n_fft)``, with its radix-7
+  stage where ``n_fft`` has a factor 7: a block per session runs all
+  ``gl_iterations`` projections with the grid in shared memory,
+  ``frames_irfft`` into an overlap-add signal in shared memory, then
+  ``frames_rfft`` of the re-framed rows and ``atan2``; plain version
   :func:`gl_polish_reference`), elsewhere two launches a projection: P's
-  kernel with the basis divided by ``overlap``, then
-  ``gl_project_analysis_kernel`` (the re-framed analysis as a product,
-  ``atan2``, the kept rows left alone; plain version
-  :func:`gl_project_reference`).  The roundtrip runs the magnitude encode
-  first.
+  kernel with the window divided by ``overlap``, then the analysis of the
+  re-framed rows, ``atan2``, the kept rows left alone, on the route of
+  :func:`session_route` (``"project"``, ``n_fft`` alone):
+  ``gl_project_analysis_fft_kernel`` (the encode's FFT-route block,
+  ``frames_rfft`` with the polish's pairs, a session's frames over several
+  blocks; plan :func:`_encode_plan`) on the FFT and smooth routes, so that
+  ``gl_iterations`` two-launch projections are the polish to the bit, and
+  ``gl_project_analysis_kernel`` (the product, at most 40 frames) elsewhere
+  (plain version :func:`gl_project_reference`, whose analysis half on the
+  FFT and smooth routes is :func:`gl_project_analysis_reference`).  The
+  roundtrip runs the magnitude encode first.
 
 Why N is three launches and not one: the recurrence is serial per session, so
 one fused launch would hold both ``O(n_fft F)`` products to one block per
@@ -94,8 +100,9 @@ n_fft``; ``pghi_gl`` adds ``lookahead_frames <= T_c`` and ``0 < gl_context <=
 T_c``.  The overlap-add layout is the JAX package's
 (``pghi_kernel.ola_supported``) or any the session's kernels take, by their
 own limits: ``hop % 4 == 0``, a block that fits shared memory, at most 4096
-bins in the recurrence, and a polish grid that the polish's block holds or 40
-polished frames a chunk (:func:`kernel_covers`).
+bins in the recurrence, and a polish grid that the polish's block holds, or
+the two-launch projection's limits (P's decode; at most 40 polished frames a
+chunk on the product route only: :func:`kernel_covers`).
 So only a shape that neither covers (hop 250) streams through the generic
 scan, as it does in the JAX package; a shape inside the JAX package's layouts
 but outside the kernels' limits raises ``NotImplementedError`` on a CUDA
@@ -191,7 +198,8 @@ __all__ = [
     "session_encode_reference", "session_roundtrip_reference", "session_decode_reference",
     "session_magnitude_reference", "rt_fill_plan", "rt_pghi_phases_reference",
     "session_complex_decode_reference",
-    "gl_project_reference", "gl_polish_reference", "session_pghi_gl_reference", "launches", "routes",
+    "gl_project_reference", "gl_project_analysis_reference", "gl_polish_reference",
+    "session_pghi_gl_reference", "launches", "routes",
     "reset_launches", "session_route",
 ]
 
@@ -207,17 +215,18 @@ _STAGE = 2 * 32 * 128             # floats of the staging area both phases share
 #: (``session_random_decode`` counts P's kernel, which is also the synthesis of
 #: the RT-PGHI sessions; O's launches of it as the projection's synthesis count
 #: as ``gl_project_synthesis``, the seeded recurrence as ``rt_pghi_seeded``, the
-#: one-launch polish as ``gl_polish``)
+#: one-launch polish as ``gl_polish``, the two-launch projection's analysis on
+#: any route as ``gl_project_analysis``)
 launches: Dict[str, int] = {
     "session_encode": 0, "session_roundtrip": 0,
     "session_random_roundtrip": 0, "session_random_decode": 0,
     "session_magnitude": 0, "rt_pghi_phases": 0, "session_complex_decode": 0,
     "rt_pghi_seeded": 0, "gl_project_synthesis": 0, "gl_project_analysis": 0, "gl_polish": 0,
 }
-#: the encode's, the roundtrips', the decodes' and the polish's launches by
-#: route, ``"<kernel>:fft"`` / ``"<kernel>:smooth"`` / ``"<kernel>:product"``
-#: (each also counts in ``launches``; the polish has no product route: the
-#: two-launch projection takes the grids it refuses)
+#: the encode's, the roundtrips', the decodes', the polish's and O's analysis's
+#: launches by route, ``"<kernel>:fft"`` / ``"<kernel>:smooth"`` /
+#: ``"<kernel>:product"`` (each also counts in ``launches``; the polish has no
+#: product route: the two-launch projection takes the grids it refuses)
 routes: Dict[str, int] = {
     "session_encode:fft": 0, "session_encode:smooth": 0, "session_encode:product": 0,
     "session_magnitude:fft": 0, "session_magnitude:smooth": 0, "session_magnitude:product": 0,
@@ -228,6 +237,7 @@ routes: Dict[str, int] = {
     "session_complex_decode:fft": 0, "session_complex_decode:smooth": 0, "session_complex_decode:product": 0,
     "gl_project_synthesis:fft": 0, "gl_project_synthesis:smooth": 0, "gl_project_synthesis:product": 0,
     "gl_polish:fft": 0, "gl_polish:smooth": 0,
+    "gl_project_analysis:fft": 0, "gl_project_analysis:smooth": 0, "gl_project_analysis:product": 0,
 }
 
 
@@ -374,31 +384,29 @@ def _encode_smem_bytes(rows: int, hop: int, kn: int) -> int:
     return 4 * ((rows - 1) * hop + kn + _STAGE)
 
 
-SESSION_ROUTE_KINDS = ("encode", "roundtrip", "decode", "polish")
+SESSION_ROUTE_KINDS = ("encode", "roundtrip", "decode", "polish", "project")
 
 
 def session_route(n_fft: int, kind: str, hop: Optional[int] = None) -> str:
     """The route of the session kernel ``kind`` at ``n_fft``: ``"fft"`` where
     ``fft_covers`` (a power of two from 64 to 4096), ``"smooth"`` where
-    ``fft_covers_smooth`` (the mixed-radix instance), else ``"product"``;
-    the encodes (``"encode"``: R and the magnitude encode), the decodes
-    (``"decode"``: P, S, O's projection synthesis, so N's and Q's synthesis)
-    and the roundtrips (``"roundtrip"``: L and M) also take ``"smooth"``
-    where ``fft_covers_smooth7`` (a factor 7: their radix-7 instance), the
-    roundtrips only where the smooth block fits at ``hop`` (at 4032 with
-    overlap 4, 6, 7 and 8 it does not, the product block does; every encode
-    and decode block fits, so their rule reads ``n_fft`` alone).  The polish
-    (``"polish"``) keeps ``fft_covers_smooth``, where :func:`_polish_plan`
-    holds the grid (it has no product route; at 1344 O runs the two-launch
-    projection).  Every caller names its kind: the C++ entries of R, L and
-    the decodes take the sevens, the polish's does not."""
+    ``fft_covers_smooth7`` (the mixed-radix instance, with its radix-7 stage
+    where ``n_fft`` has a factor 7), else ``"product"``.  The encodes
+    (``"encode"``: R and the magnitude encode), the decodes (``"decode"``:
+    P, S, O's projection synthesis, so N's and Q's synthesis), O's polish
+    (``"polish"``, where :func:`_polish_plan` holds the grid: it has no
+    product route) and O's two-launch analysis (``"project"``) read ``n_fft``
+    alone: every block of theirs fits.  The roundtrips (``"roundtrip"``: L
+    and M) take the radix-7 instance only where the smooth block fits at
+    ``hop`` (at 4032 with overlap 4, 6, 7 and 8 it does not, the product
+    block does).  Every caller names its kind."""
     if kind not in SESSION_ROUTE_KINDS:
         raise ValueError("session_route: kind %r is none of %s" % (kind, SESSION_ROUTE_KINDS))
     if fft_covers(n_fft):
         return "fft"
     if fft_covers_smooth(n_fft):
         return "smooth"
-    if kind != "polish" and fft_covers_smooth7(n_fft):
+    if fft_covers_smooth7(n_fft):
         if kind != "roundtrip":
             return "smooth"
         if hop is None:
@@ -481,7 +489,8 @@ def _encode_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
     1344, 16 frames; 4 at 896, 32 frames), first among the blocks that leave
     room for a second on the SM (measured on the H100 at 1920/480: 8 frames
     two blocks an SM 0.24 ms, 16 one block 0.35); the product route: ``teams
-    = 0`` and :func:`_pick_rows`'s height."""
+    = 0`` and :func:`_pick_rows`'s height.  O's two-launch analysis takes
+    this plan on the FFT and smooth routes (its block is the encode's)."""
     route = session_route(n_fft, "encode")
     if route == "product":
         rows = _pick_rows("encode", n_fft, hop)
@@ -580,14 +589,19 @@ def _decode_plan(n_fft: int, hop: int, rows: Optional[int] = None) -> Optional[T
 
 def _project_frames_fit(n_fft: int, hop: int, rows: int) -> bool:
     """Whether O's projection analysis takes a grid of ``rows`` polished
-    frames (``T_c + lookahead``): at most 40, whose samples fit shared memory."""
+    frames (``T_c + lookahead``): on the FFT and smooth routes any number
+    (:func:`_encode_plan`'s blocks of an even group of frames); on the product
+    route at most 40, whose samples fit one block's shared memory."""
+    if session_route(n_fft, "project") != "product":
+        return rows >= 1 and _encode_plan(n_fft, hop) is not None
     return 1 <= rows <= MAX_ROWS and _encode_smem_bytes(rows, hop, _k_analysis(n_fft)) <= MAX_SMEM
 
 
 def _two_launch_covers(n_fft: int, hop: int, rows: int) -> bool:
-    """Whether the two-launch projection (P's synthesis, then
-    ``gl_project_analysis_kernel``) takes ``rows`` polished frames."""
-    return kernel_covers("decode", n_fft, hop) and _project_frames_fit(n_fft, hop, int(rows))
+    """Whether the two-launch projection (P's synthesis in narrow blocks,
+    then the analysis) takes ``rows`` polished frames."""
+    return (kernel_covers("decode", n_fft, hop) and _decode_plan(n_fft, hop, PROJECT_SYN_ROWS) is not None
+            and _project_frames_fit(n_fft, hop, int(rows)))
 
 
 def _polish_smem_bytes(Tp: int, hop: int, n_fft: int, teams: int, resident: bool) -> int:
@@ -605,15 +619,17 @@ def _polish_plan(n_fft: int, hop: int, Tp: int) -> Optional[Tuple[int, bool]]:
     """``(teams, resident)`` of the polish's launch for a grid of ``Tp``
     frames (``gl_context + T_c + lookahead + overlap - 1``), or None, and then
     the polish is ``gl_iterations`` two-launch projections.  It takes ``n_fft``
-    a power of two from 64 to 4096 (``fft_covers``) or even and ``2^a 3^b 5^c``
-    (``fft_covers_smooth``: the kernel's mixed-radix instance, the same route
-    as :func:`session_route`'s), ``hop % 4 == 0``, ``2 <= overlap <= 8`` and a
+    a power of two from 64 to 4096 (``fft_covers``) or even and ``2^a 3^b 5^c
+    7^d`` (``fft_covers_smooth7``: the kernel's mixed-radix instance, its
+    radix-7 one where ``n_fft`` has a factor 7, the route of
+    :func:`session_route`), ``hop % 4 == 0``, ``2 <= overlap <= 8`` and a
     block that fits shared memory: the grid's magnitudes and phases in shared
     memory (``resident``) with the most FFTs side by side that fit (``4096 /
     n_fft`` on 256 threads on the FFT route: 4 at 1024/256, a 160 KB block at
     22 frames; ``frames_fft.fft_smooth_max_teams`` on the smooth route: 2 at
-    1200/300, a 137 KB block at 14 frames), else read from and written to
-    device memory.  The rule reads the shape alone, never a failed launch."""
+    1200/300, a 137 KB block at 14 frames; 2 at 1344/336), else read from and
+    written to device memory.  The rule reads the shape alone, never a failed
+    launch."""
     ov = n_fft // hop if hop else 0
     route = session_route(n_fft, "polish")
     if route == "product" or hop % 4 or n_fft % hop or not 2 <= ov <= MAX_OVERLAP or Tp < ov:
@@ -635,9 +651,9 @@ def kernel_covers(kind: str, n_fft: int, hop: int, rows: Optional[int] = None,
     ``"recurrence"`` (RT-PGHI) at most 4096 bins, what one block holds;
     ``"project"`` (O's polish) a grid of ``ctx + rows + overlap - 1`` frames
     that :func:`_polish_plan` takes (``rows = T_c + lookahead``; ``ctx``, the
-    pinned context, at most ``rows``: None counts it as ``rows``), or P's
-    limits and at most 40 polished frames whose samples fit shared memory
-    (the two-launch projection)."""
+    pinned context, at most ``rows``: None counts it as ``rows``), or the
+    two-launch projection's limits: P's, and on the product route at most 40
+    polished frames whose samples fit shared memory."""
     if kind == "recurrence":
         return n_fft % hop == 0 and n_fft // 2 + 1 <= RT_MAX_BINS
     if kind == "project":
@@ -653,8 +669,8 @@ def kernel_covers(kind: str, n_fft: int, hop: int, rows: Optional[int] = None,
 
 _PROJECT_NEED = ("hop % 4 == 0 and a grid (gl_context + T_c + lookahead + overlap - 1 frames) that the "
                  "polish's block holds in shared memory at n_fft a power of two from 64 to 4096 or an even "
-                 "2^a 3^b 5^c, or at most 40 polished frames (T_c + lookahead) whose samples fit shared "
-                 "memory")
+                 "2^a 3^b 5^c 7^d, or P's limits and, at any other n_fft, at most 40 polished frames "
+                 "(T_c + lookahead) whose samples fit shared memory")
 
 
 def _require(kind: str, n_fft: int, hop: int, rows: Optional[int] = None,
@@ -1119,57 +1135,64 @@ def rt_pghi_phases(mag, angles, gamma: float, n_fft: int, hop: int, tolerance: f
                                     prev_mag, prev_phase)
 
 
-def gl_project_reference(mag, phase, inv_window, window, n_fft: int, hop: int, ctx: int,
-                         keep_lo: int, keep_hi: int) -> torch.Tensor:
-    """Plain version of O's projection: the grid's magnitudes and phases ``(B,
-    Tx + overlap - 1, F)`` (the last ``overlap - 1`` frames zero magnitude) ->
-    the phases after one projection, ``atan2`` of the analysis of the
-    overlap-add (divided by ``overlap``) re-framed at the grid's frames, on
-    rows ``ctx .. Tx - 1`` outside ``[keep_lo, keep_hi)``; every other row as
-    it was."""
-    overlap = n_fft // hop
-    Tp = mag.shape[1]
-    Tx = Tp - (overlap - 1)
-    y = _synthesis_reference(mag * torch.cos(phase), mag * torch.sin(phase), inv_window, float(overlap),
-                             n_fft, hop, Tp)
+def gl_project_analysis_reference(y, phase, window, n_fft: int, hop: int, ctx: int, keep_lo: int,
+                                  keep_hi: int) -> torch.Tensor:
+    """Plain version of O's projection analysis: the grid's overlap-add signal
+    ``y (B, >= Tp hop)`` and phases ``(B, Tp, F)`` (``Tp = Tx + overlap - 1``)
+    -> the phases with rows ``ctx .. Tx - 1`` outside ``[keep_lo, keep_hi)``
+    replaced by ``atan2`` of the analysis of the re-framed rows (frame ``f``
+    is ``y[f hop, f hop + n_fft)``); every other row as it was, bit for bit.
+    On the FFT and smooth routes (:func:`session_route`, ``"project"``)
+    ``frames_rfft_reference`` with the pairs ``(2j, 2j + 1)`` counted from
+    ``ctx`` (``smooth=True`` on the latter: the mixed-radix schedule, its
+    radix-7 stage where ``n_fft`` has a factor 7), the schedule of
+    ``gl_project_analysis_fft_kernel`` and of the polish's analysis; on the
+    product route the products with the window-folded basis."""
+    Tx = phase.shape[1] - (n_fft // hop - 1)
     fr = y.unfold(-1, n_fft, hop)[:, ctx:Tx]
-    WC, WS = _ana_basis(window.to(mag.device), n_fft)
-    new = torch.atan2(torch.matmul(fr, WS), torch.matmul(fr, WC))
-    rows = torch.arange(ctx, Tx, device=mag.device)
+    route = session_route(n_fft, "project")
+    if route == "product":
+        WC, WS = _ana_basis(window.to(y.device), n_fft)
+        new = torch.atan2(torch.matmul(fr, WS), torch.matmul(fr, WC))
+    else:
+        w = window.to(device=y.device, dtype=torch.float32)
+        re, im = frames_rfft_reference(fr, w, smooth=route == "smooth")
+        new = torch.atan2(im, re)
+    rows = torch.arange(ctx, Tx, device=y.device)
     upd = ((rows < keep_lo) | (rows >= keep_hi))[None, :, None]
     out = phase.clone()
     out[:, ctx:Tx] = torch.where(upd, new, phase[:, ctx:Tx])
     return out
 
 
+def gl_project_reference(mag, phase, inv_window, window, n_fft: int, hop: int, ctx: int,
+                         keep_lo: int, keep_hi: int) -> torch.Tensor:
+    """Plain version of O's projection: the grid's magnitudes and phases ``(B,
+    Tx + overlap - 1, F)`` (the last ``overlap - 1`` frames zero magnitude) ->
+    the phases after one projection: the synthesis of every grid frame
+    divided by ``overlap`` (:func:`_synthesis_reference`: on the FFT and
+    smooth routes the decode's schedule, ``mag (cos, sin)``, the frames paired
+    ``(r, r + overlap)`` from ``-(overlap - 1)`` on, the overlap-add in class
+    order), cut at ``Tp hop`` samples, then
+    :func:`gl_project_analysis_reference` of that signal on rows ``ctx .. Tx
+    - 1`` outside ``[keep_lo, keep_hi)``; every other row as it was."""
+    overlap = n_fft // hop
+    y = _synthesis_reference(mag * torch.cos(phase), mag * torch.sin(phase), inv_window, float(overlap),
+                             n_fft, hop, mag.shape[1])
+    return gl_project_analysis_reference(y, phase, window, n_fft, hop, ctx, keep_lo, keep_hi)
+
+
 def gl_polish_reference(mag, phase, inv_window, window, n_fft: int, hop: int, ctx: int,
                         keep_lo: int, keep_hi: int, iters: int) -> torch.Tensor:
-    """Plain version of O's polish on the FFT and smooth routes
-    (``gl_polish_fft_kernel``; ``smooth=True`` in both plain FFTs where
-    :func:`session_route` says ``"smooth"``):
-    ``iters`` projections of the grid (``mag`` and ``phase`` ``(B, Tp, F)``,
-    the last ``overlap - 1`` frames zero magnitude; see
-    :func:`gl_project_reference`) in the kernel's schedule.  Each: the
-    synthesis of every grid frame as the decode's FFT route computes it
-    (:func:`_synthesize_fft` with the gain ``overlap``: ``mag (cos, sin)``,
-    the frames paired ``(r, r + overlap)`` from ``-(overlap - 1)`` on, the
-    overlap-add in class order), cut at ``Tp hop`` samples; then
-    ``frames_rfft_reference`` of the re-framed rows ``ctx .. Tx - 1`` (pairs
-    ``(2j, 2j + 1)`` counted from ``ctx``) and ``atan2``, written to those
-    rows outside ``[keep_lo, keep_hi)``; every other row as it was, bit for
-    bit.  Returns the new phases."""
-    ov = n_fft // hop
-    Tx = mag.shape[1] - (ov - 1)
-    rows = torch.arange(ctx, Tx, device=mag.device)
-    upd = ((rows < keep_lo) | (rows >= keep_hi))[None, :, None]
-    w = window.to(device=mag.device, dtype=torch.float32)
-    smooth = session_route(n_fft, "polish") == "smooth"
+    """Plain version of O's polish (``gl_polish_fft_kernel``): ``iters`` calls
+    of :func:`gl_project_reference` on the grid (``mag`` and ``phase`` ``(B,
+    Tp, F)``, the last ``overlap - 1`` frames zero magnitude), the kernel's
+    schedule on the FFT and smooth routes: its synthesis is P's, its analysis
+    ``gl_project_analysis_fft_kernel``'s.  So it is also the plain version of
+    ``iters`` two-launch projections.  Returns the new phases."""
     ph = phase.clone()
     for _ in range(int(iters)):
-        y = _synthesize_fft(mag * torch.cos(ph), mag * torch.sin(ph), inv_window, float(ov), n_fft, hop,
-                            mag.shape[1], smooth)
-        re, im = frames_rfft_reference(y.unfold(-1, n_fft, hop)[:, ctx:Tx], w, smooth=smooth)
-        ph[:, ctx:Tx] = torch.where(upd, torch.atan2(im, re), ph[:, ctx:Tx])
+        ph = gl_project_reference(mag, ph, inv_window, window, n_fft, hop, ctx, keep_lo, keep_hi)
     return ph
 
 
@@ -1194,22 +1217,53 @@ def _launch_polish(mag, phase, window, proj_syn, n_fft, hop, ctx, keep_lo, keep_
     routes["gl_polish:" + session_route(n_fft, "polish")] += 1
 
 
-def _launch_project_analysis(y, phase, WC, WS, n_fft, hop, Tx, ctx, keep_lo, keep_hi) -> None:
-    """O's projection analysis, ``phase`` updated in place."""
+def _project_operands(window, WC, WS, n_fft: int, device):
+    """What O's analysis reads besides the signal on the route ``n_fft``
+    takes (:func:`session_route`, ``"project"``): the window-folded bases
+    ``WC``, ``WS`` (``(Kn, F)`` each) on the product route, the analysis
+    window and the twiddle table on the FFT and smooth routes
+    (:func:`_encode_operands`'s, built from ``window``)."""
+    if session_route(n_fft, "project") == "product":
+        if WC is None or WS is None:
+            raise ValueError("the projection's product analysis takes the window-folded bases WC, WS")
+        return WC, WS
+    (tw,) = _tables(fft_twiddles, device, n_fft)
+    return window.to(device=device, dtype=torch.float32).contiguous(), tw
+
+
+def _launch_project_analysis(y, phase, ops, n_fft, hop, Tx, ctx, keep_lo, keep_hi) -> None:
+    """O's projection analysis, ``phase`` updated in place, on the route of
+    :func:`session_route` (``"project"``): ``gl_project_analysis_fft_kernel``
+    in :func:`_encode_plan`'s blocks on the FFT and smooth routes,
+    ``gl_project_analysis_kernel`` on the product route.  ``ops``:
+    :func:`_project_operands`."""
     if not _two_launch_covers(n_fft, hop, Tx - ctx):
         raise NotImplementedError(
             "the projection analysis does not cover n_fft=%d hop=%d with %d polished frames: it needs P's "
-            "limits and at most 40 frames whose samples fit shared memory (ROADMAP Queue 2, K10-K17)"
-            % (n_fft, hop, Tx - ctx))
+            "limits and, on the product route, at most 40 frames whose samples fit shared memory (ROADMAP "
+            "Queue 2, K10-K17)" % (n_fft, hop, Tx - ctx))
     B, Tp, F = phase.shape
+    route = session_route(n_fft, "project")
+    a, b = ops
     lib = _build.load_library()
     with torch.cuda.device(y.device):
-        code = lib.att_gl_project_analysis(
-            y.data_ptr(), WC.data_ptr(), WS.data_ptr(), phase.data_ptr(), B, y.shape[1], Tp, Tx, ctx,
-            keep_lo, keep_hi, F, hop, WC.shape[0], _stream(),
-        )
+        if route == "product":
+            code = lib.att_gl_project_analysis(
+                y.data_ptr(), a.data_ptr(), b.data_ptr(), phase.data_ptr(), B, y.shape[1], Tp, Tx, ctx,
+                keep_lo, keep_hi, F, hop, a.shape[0], _stream(),
+            )
+        else:
+            if tuple(a.shape) != (n_fft,) or tuple(b.shape) != (2, n_fft):
+                raise ValueError("the analysis's FFT and smooth routes take the window (n_fft,) and the twiddle "
+                                 "table (2, n_fft)")
+            rows, teams = _encode_plan(n_fft, hop)
+            code = lib.att_gl_project_analysis_fft(
+                y.data_ptr(), a.data_ptr(), b.data_ptr(), phase.data_ptr(), B, y.shape[1], Tp, Tx, ctx,
+                keep_lo, keep_hi, F, hop, n_fft // hop, rows, teams, _stream(),
+            )
     _build.check(code, "gl_project_analysis")
     launches["gl_project_analysis"] += 1
+    routes["gl_project_analysis:" + route] += 1
 
 
 #: output chunks per block of the projection's synthesis: narrow, so that one
@@ -1221,36 +1275,39 @@ def gl_project(mag, phase, proj_syn, inv_window, window, WC, WS, n_fft: int, hop
                keep_lo: int, keep_hi: int) -> torch.Tensor:
     """One projection of O's grid (see :func:`gl_project_reference`): on a
     CUDA tensor P's synthesis with ``proj_syn`` (:func:`_decode_operands`
-    with the gain ``overlap``) in narrow blocks, then the analysis kernel,
-    which updates ``phase`` in place and returns it; on a CPU tensor the
-    plain version."""
+    with the gain ``overlap``) in narrow blocks, then the analysis kernel of
+    its route (the window-folded bases ``WC``, ``WS`` on the product route;
+    the FFT and smooth routes read ``window`` and leave them unread, None
+    will do), which updates ``phase`` in place and returns it; on a CPU
+    tensor the plain version."""
     if not mag.is_cuda:
         return gl_project_reference(mag, phase, inv_window, window, n_fft, hop, ctx, keep_lo, keep_hi)
     Tx = mag.shape[1] - (n_fft // hop - 1)
     y = _launch_decode(mag, phase, proj_syn, n_fft, hop, rows=PROJECT_SYN_ROWS, name="gl_project_synthesis")
-    _launch_project_analysis(y, phase, WC, WS, n_fft, hop, Tx, ctx, keep_lo, keep_hi)
+    _launch_project_analysis(y, phase, _project_operands(window, WC, WS, n_fft, y.device), n_fft, hop, Tx, ctx,
+                             keep_lo, keep_hi)
     return phase
 
 
 def gl_polish(mag, phase, proj_syn, inv_window, window, WC, WS, n_fft: int, hop: int, ctx: int,
               keep_lo: int, keep_hi: int, iters: int) -> torch.Tensor:
-    """``iters`` projections of O's grid, the polish of one chunk.  Where
-    :func:`_polish_plan` takes the grid: on a CUDA tensor one launch of
+    """``iters`` projections of O's grid, the polish of one chunk.  On a CPU
+    tensor :func:`gl_polish_reference` (``iters`` plain projections, which
+    the kernels' routes compute alike).  On a CUDA tensor, where
+    :func:`_polish_plan` takes the grid, one launch of
     ``gl_polish_fft_kernel`` (``proj_syn``: :func:`_decode_operands` with the
-    gain ``overlap``), which updates ``phase`` in place and returns it, on a
-    CPU tensor :func:`gl_polish_reference`.  Elsewhere ``iters`` calls of
-    :func:`gl_project` (two launches each on a CUDA tensor, with the analysis
-    bases ``WC``, ``WS``)."""
+    gain ``overlap``), which updates ``phase`` in place and returns it;
+    elsewhere ``iters`` calls of :func:`gl_project`, two launches each (the
+    analysis bases ``WC``, ``WS`` are read on the product route only)."""
     iters = int(iters)
+    if not mag.is_cuda:
+        return gl_polish_reference(mag, phase, inv_window, window, n_fft, hop, ctx, keep_lo, keep_hi, iters)
     plan = _polish_plan(n_fft, hop, mag.shape[1])
     if plan is None:
         for _ in range(iters):
             phase = gl_project(mag, phase, proj_syn, inv_window, window, WC, WS, n_fft, hop, ctx, keep_lo,
                                keep_hi)
-        return phase
-    if not mag.is_cuda:
-        return gl_polish_reference(mag, phase, inv_window, window, n_fft, hop, ctx, keep_lo, keep_hi, iters)
-    if iters > 0:
+    elif iters > 0:
         _launch_polish(mag, phase, window, proj_syn, n_fft, hop, ctx, keep_lo, keep_hi, iters, plan)
     return phase
 
@@ -1332,7 +1389,7 @@ class _Session:
         proj_syn = WC = WS = None
         if mag.is_cuda:
             proj_syn = _decode_operands(rt.inv_window, float(n_fft // hop), n_fft, hop)
-            if _polish_plan(n_fft, hop, Tp) is None:
+            if _polish_plan(n_fft, hop, Tp) is None and session_route(n_fft, "project") == "product":
                 WC, WS = self.analysis()
         cm, cp = _pghi_gl_commits(
             mag, angles, rt, self.T_c,

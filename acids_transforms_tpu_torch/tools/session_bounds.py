@@ -1,6 +1,6 @@
-"""The readings that two bounds of ``chip_smoke.py`` at 1344/336 (n_fft 2^6 3
-7: the decodes on the radix-7 instance, O's projection analysis a product)
-are set from.
+"""The readings that two bounds of ``chip_smoke.py`` are set from: the
+``pghi_gl`` sessions at 1344/336 (n_fft 2^6 3 7: the decodes and O's polish on
+their radix-7 instances) and O's product analysis at 1408/352 (n_fft 2^7 11).
 
 Usage (on a machine with a CUDA card)::
 
@@ -16,10 +16,11 @@ Usage (on a machine with a CUDA card)::
   product route they took before the radix-7 stage, and, at seed 156, with the
   decodes' synthesis window perturbed by ``eps`` (uniform, relative): what a
   wrong decode reads.
-* ``analysis``: O's projection analysis (``gl_project_analysis``) on the
-  radix-7 synthesis of 8 random grids of 64 sessions (3 pinned + 8 + 3 zero
-  frames) at 1344/336, against its plain version and the float64 analysis,
-  and with its basis perturbed by ``eps``.  A phase is read as ``|Y| (cos,
+* ``analysis``: O's projection analysis on its product route
+  (``gl_project_analysis_kernel``) on the product synthesis of 8 random grids
+  of 64 sessions (3 pinned + 8 + 3 zero frames) at 1408/352, against its
+  plain version and the float64 analysis, and with its basis perturbed by
+  ``eps``.  A phase is read as ``|Y| (cos,
   sin)(phase)`` over the session's largest ``|Y|``, ``Y`` the float64
   re-framed spectrum (a bin's angle is only as good as its magnitude).
 
@@ -126,7 +127,7 @@ def pghi_gl_readings(mono: torch.Tensor, seed: int, log) -> list:
 
 
 def analysis_readings(dev, seed: int, log) -> list:
-    n_fft, hop, sessions = 1344, 336, 64
+    n_fft, hop, sessions = 1408, 352, 64
     rt = (T.OverlapAdd(n_fft, hop, device=dev) + T.RealtimeSTFT(n_fft=n_fft, hop_length=hop, device=dev))[1]
     ov, F, ctx = n_fft // hop, n_fft // 2 + 1, rt.gl_context
     tp = ctx + 8 + ov - 1
@@ -156,7 +157,7 @@ def analysis_readings(dev, seed: int, log) -> list:
 
         def kernel(wc_k, ws_k):
             out = gp.clone()
-            ss._launch_project_analysis(y, out, wc_k, ws_k, n_fft, hop, tx, ctx, lo, hi)
+            ss._launch_project_analysis(y, out, (wc_k, ws_k), n_fft, hop, tx, ctx, lo, hi)
             return out[:, ctx:tx][:, upd]
         a_k, a_p = kernel(wc, ws), a_p[:, upd]
         row = dict(grid=s, kernel_vs_plain=off(a_k, a_p), kernel_vs_float64=off(a_k, a_64),

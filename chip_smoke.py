@@ -75,8 +75,12 @@ taps' own window, the factored front end elsewhere), the representations' forwar
 and fit statistics with taps (G and H: G and H full-K's FFT and smooth
 instances under the taps' own window), and O's polish
 (``gl_polish_fft_kernel``: every projection of a chunk in one launch, where
-its block holds the grid, on the FFT or the smooth route; two launches a
-projection elsewhere).  Phases 3 and 4f
+its block holds the grid, on the FFT route, the smooth route or its radix-7
+instance; two launches a projection elsewhere, the analysis's
+``gl_project_analysis_fft_kernel`` on the FFT and smooth routes, with the
+polish's pairs, so that the two launches equal the polish bit for bit, and
+``gl_project_analysis_kernel``, a product, at n_fft neither a power of two
+nor 7-smooth).  Phases 3 and 4f
 hold the FFT route against its plain version (within 1e-5 for R, E and F;
 1e-6 for C, D, I, J, L, M, K's synthesis, G, H, P, S and O's synthesis,
 which come out bit-identical; A within 2e-5 and B and H with taps with their
@@ -90,7 +94,12 @@ and the smooth route of R, L, M, P, S, O's synthesis and O's polish (the
 mixed-radix FFT) at 1200/300, 960/240, 768/192, 400/100 and 1920/480, and
 of R, the magnitude encode, L, M, P, S and O's synthesis (its radix-7
 instances) at 1344/336 and 896/224 (L, M, P, S and O's synthesis also at
-overlap 2, 3, 5, 6, 7 and 8), bit-identical to its plain version, of E and F (A and B under hann and blackman taps) at
+overlap 2, 3, 5, 6, 7 and 8), bit-identical to its plain version, of O's
+polish (its radix-7 instance) at 1344/336 and 896/224 and O's analysis on the
+FFT route (4096/1024), the smooth route (3072/768, 2560/1280) and its radix-7
+instance (3584/896, 1344/336), bit-identical, with ``gl_iterations``
+two-launch projections equal to one polish launch at 1024/256, 1200/300 and
+1344/336, of E and F (A and B under hann and blackman taps) at
 768/256, 768/192, 640/160, 384/96, 1536/384, 1920/480 and 3072/768 and (their
 radix-7 instances) at 896/224, 896/128, 896/448, 1344/448, 1344/192,
 1568/224, 1120/160 and 672/96 (|X| and
@@ -111,11 +120,13 @@ drives the smooth, product and factored routes through the entry points
 (1200/300 sessions: R, L, M, the magnitude encode, the decodes and, in
 ``pghi_gl``, O's polish on the smooth route, one launch a chunk; a 3072/768
 ``pghi_gl`` grid of 3 + 40 + 3 frames, which no polish block holds, on the
-two-launch projection; 1344/336 sessions: R, L, M, the magnitude encode
-and the decodes (O's two-launch synthesis among them) on the smooth
-route's radix-7 instances, O's analysis on its product;
+two-launch projection, its analysis on the smooth route, as a 2560/1280 one
+of 3 + 39 + 1 and, on its radix-7 instance, a 3584/896 one of 1 + 40 + 3;
+1344/336 sessions: R, L, M, the magnitude encode, the decodes and O's
+polish (one launch a chunk, timed in turns with the two-launch route it
+replaced) on the smooth route's radix-7 instances;
 1408/352 sessions: R, L, M, the magnitude encode and the decodes (O's
-two-launch synthesis among them) on the product route;
+two-launch synthesis and analysis among them) on the product route;
 ``STFT(1200, 300)`` and ``DGT(768, 256)``
 ``pghi`` inverts: K's synthesis on the smooth route, ``DGT(896, 224)`` on
 its radix-7 instance, ``DGT(1408, 352)`` on the product route; STFT(768,
@@ -210,7 +221,8 @@ SEVEN_SHAPES = ((896, 224), (1344, 336), (1792, 448), (1680, 420))
 # the kernels with a radix-7 instance (R, the magnitude encode, L, M, P, S,
 # O's synthesis), by their launch counters' names
 SEVEN_KERNELS = ("session_encode", "session_magnitude", "session_roundtrip", "session_random_roundtrip",
-                 "session_random_decode", "session_complex_decode", "gl_project_synthesis")
+                 "session_random_decode", "session_complex_decode", "gl_project_synthesis", "gl_polish",
+                 "gl_project_analysis")
 
 
 def log(msg: str) -> None:
@@ -543,7 +555,8 @@ def k_synth_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
 
 
 def polish_plan_sweep(sessions: int, repeats: int, dev) -> dict:
-    """O's polish on the smooth route at each of SESSION_SMOOTH_SHAPES: a
+    """O's polish on the smooth route at each of SESSION_SMOOTH_SHAPES and
+    at 1344/336 (its radix-7 instance): a
     grid of gl_context 3 + 8 + overlap - 1 frames of `sessions` sessions
     (random magnitudes, phases to 50 rad, the zero frames last), 16
     projections in one launch, under every (teams, resident) the kernel
@@ -557,7 +570,7 @@ def polish_plan_sweep(sessions: int, repeats: int, dev) -> dict:
 
     rule, out = ss._polish_plan, {}
     try:
-        for n_fft, hop in SESSION_SMOOTH_SHAPES:
+        for n_fft, hop in SESSION_SMOOTH_SHAPES + ((1344, 336),):
             ov, Fb = n_fft // hop, n_fft // 2 + 1
             rt = T.RealtimeSTFT(n_fft=n_fft, hop_length=hop, inversion_mode="pghi_gl", device=dev)
             ctx, iters = rt.gl_context, rt.gl_iterations
@@ -751,16 +764,35 @@ def seven_blocks(regs: int) -> int:
 def k_polish_smooth_resources(res: dict) -> dict:
     """The build log's resources of K's synthesis's and O's polish's smooth
     instances: ``pghi_synthesize_fft_kernel<true, false>`` (``ILb1ELb0EE``)
-    and ``gl_polish_fft_kernel<kResident, true>`` (``ILb0ELb1EE``,
-    ``ILb1ELb1EE``), by the labels ``K``, ``O resident``, ``O device``."""
+    and ``gl_polish_fft_kernel<kResident, true, false>`` (``ILb0ELb1ELb0EE``,
+    ``ILb1ELb1ELb0EE``), by the labels ``K``, ``O resident``, ``O device``."""
     out = {}
     for k, v in res.items():
         if "pghi_synthesize_fft_kernelILb1ELb0EE" in k:
             out["K"] = v
-        elif "gl_polish_fft_kernelILb1ELb1EE" in k:
+        elif "gl_polish_fft_kernelILb1ELb1ELb0EE" in k:
             out["O resident"] = v
-        elif "gl_polish_fft_kernelILb0ELb1EE" in k:
+        elif "gl_polish_fft_kernelILb0ELb1ELb0EE" in k:
             out["O device"] = v
+    return out
+
+
+def o_route_resources(res: dict) -> dict:
+    """The build log's resources of O's polish's radix-7 instances
+    (``gl_polish_fft_kernel<kResident, true, true>``: ``ILb1ELb1ELb1EE``,
+    ``ILb0ELb1ELb1EE``) and of O's analysis on the FFT and smooth routes
+    (``gl_project_analysis_fft_kernel<kSmooth, kSeven>``: ``ILb0ELb0EE``,
+    ``ILb1ELb0EE``, ``ILb1ELb1EE``), by the labels ``O seven resident``, ``O
+    seven device``, ``Oana fft``, ``Oana smooth``, ``Oana seven``."""
+    out = {}
+    for k, v in res.items():
+        for kern, label in (("gl_polish_fft_kernelILb1ELb1ELb1EE", "O seven resident"),
+                            ("gl_polish_fft_kernelILb0ELb1ELb1EE", "O seven device"),
+                            ("gl_project_analysis_fft_kernelILb0ELb0EE", "Oana fft"),
+                            ("gl_project_analysis_fft_kernelILb1ELb0EE", "Oana smooth"),
+                            ("gl_project_analysis_fft_kernelILb1ELb1EE", "Oana seven")):
+            if kern in k:
+                out[label] = v
     return out
 
 
@@ -786,7 +818,7 @@ def session_seven_resources(res: dict) -> dict:
 def smooth_instance_resources(res: dict) -> dict:
     """The build log's resources of every mixed-radix instance of every
     kernel, by its mangled name: the sessions' (encode, roundtrip, decode,
-    polish; their kSmooth argument true), E's and F's (the radix-7 ones
+    polish, O's analysis; their kSmooth argument true), E's and F's (the radix-7 ones
     too), G's and H's, the Griffin-Lim steps' and K's synthesis's (J's and
     K's radix-7 ones too)."""
     out = dict(melspec_smooth_resources(res))
@@ -795,12 +827,40 @@ def smooth_instance_resources(res: dict) -> dict:
                 and "Li3E" in k})
     out.update(gl_smooth_resources(res))
     for k, v in res.items():
-        if ("pghi_synthesize_fft_kernelILb1E" in k or "gl_fullk_fft_kernelILb1ELb1EE" in k or "gl_polish_fft_kernelIL" in k and "ELb1EE" in k
+        if ("pghi_synthesize_fft_kernelILb1E" in k or "gl_fullk_fft_kernelILb1ELb1EE" in k
+                or "gl_polish_fft_kernelIL" in k and ("ELb1ELb0EE" in k or "ELb1ELb1EE" in k)
+                or "gl_project_analysis_fft_kernelILb1E" in k
                 or "session_decode_fft_kernelIL" in k and ("ELb1ELb0EE" in k or "ELb1ELb1EE" in k)
                 or "session_encode_kernelILb" in k and ("ELb1ELb1ELb0EE" in k or "ELb1ELb1ELb1EE" in k)
                 or "session_roundtrip_fft_kernelIL" in k and ("ELb1ELb0EE" in k or "ELb1ELb1EE" in k)):
             out[k] = v
     return out
+
+
+class analysis_on_product:
+    """Within it, O's two-launch analysis takes its product route at every
+    n_fft (``stream_step.session_route`` answers "product" for the kind
+    ``"project"``) and, with ``polish=False``, the polish refuses every grid
+    (``stream_step._polish_plan`` answers None): the route O took before its
+    analysis had FFT routes and its polish a radix-7 instance, for timing in
+    turns.  ``on=False`` changes nothing."""
+
+    def __init__(self, ss, on: bool = True, polish: bool = True):
+        self.ss, self.on, self.polish = ss, on, polish
+
+    def __enter__(self):
+        ss = self.ss
+        self.saved = ss.session_route, ss._polish_plan
+        if self.on:
+            route = self.saved[0]
+            ss.session_route = lambda n, kind, hop=None: "product" if kind == "project" else route(n, kind, hop)
+            if not self.polish:
+                ss._polish_plan = lambda *a: None
+        return self
+
+    def __exit__(self, *exc):
+        self.ss.session_route, self.ss._polish_plan = self.saved
+        return False
 
 
 def require(cond: bool, what: str) -> None:
@@ -1352,7 +1412,8 @@ def stream_phase(args, dev, gen, errs, counts, other_wrappers):
         log(f"  {label}: {ms:.1f} ms, launches {got}" + (f", encode routes {fronts}" if fronts else ""))
         require(got == expect and others() == 0, f"{label}: expected the launches {expect}, got {got}")
         for k in ("session_encode", "session_magnitude", "session_roundtrip", "session_random_roundtrip",
-                  "session_random_decode", "session_complex_decode", "gl_project_synthesis", "gl_polish"):
+                  "session_random_decode", "session_complex_decode", "gl_project_synthesis", "gl_polish",
+                  "gl_project_analysis"):
             fk = front.get(k, "fft") if isinstance(front, dict) else front
             on = ss.routes.get(f"{k}:{fk}", 0)
             require(on == ss.launches[k], f"{label}: {k} launched {ss.launches[k]} times, {on} on the {fk} route")
@@ -1935,13 +1996,15 @@ def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
       at lookahead 4, with the ``pghi`` figure of the same sessions beside;
       the hann roundtrip (lookahead 0 and 4) and decode at B = 1 and 8 too;
       a grid the polish does not take (4096/1024, ``gl_context`` 1, chunks
-      of 40 frames) on two launches a projection;
+      of 40 frames) on two launches a projection, the analysis on its FFT
+      route (timed in turns with its product route, host clock);
     * each new kernel against its plain version on identical inputs at the
       main shape, 512/128 and 2048/512, lookahead 0 and 4: the seeded
       recurrence (phases bit-identical, or ``|X| (cos, sin)`` within 1e-4 of
       the largest), the projection (pinned and frozen rows included, within
       1e-4 of the largest ``|X| (cos, sin)``; its synthesis alone within 2e-5
-      relative), the polish of 16 projections (bit-identical) and the whole
+      relative), the polish of 16 projections (bit-identical to its plain
+      version and to 16 two-launch projections) and the whole
       session against the plain session (spectral
       convergence within ``1.1 s + 1e-3``, finite);
     * the hann roundtrip's and decode's times beside the generic scan's at B
@@ -2063,7 +2126,8 @@ def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
     # a grid that the polish's block cannot hold (4096/1024, gl_context 1,
     # chunks of 40 frames: 44 grid frames, 271 KB even with the grid in
     # device memory) keeps the two-launch projections, here on the decode's
-    # FFT route; these launches are the Osyn and Oana rows' counts
+    # and the analysis's FFT routes; these launches are the Osyn and
+    # Oana_fft rows' counts
     fb_n, fb_hop, fb_ctx, fb_tc = 4096, 1024, 1, 40
     fb_chain = T.OverlapAdd(fb_n, fb_hop) + T.RealtimeSTFT(n_fft=fb_n, hop_length=fb_hop, inversion_mode="pghi_gl",
                                                          gl_context=fb_ctx)
@@ -2085,8 +2149,19 @@ def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
         f"(must be <= {1.1 * s2 + 1e-3:.5f})")
     require(y1.shape == y2.shape and torch.isfinite(y1).all().item() and s1 <= 1.1 * s2 + 1e-3,
             "the two-launch polish converges worse than the generic scan")
-    for k in ("gl_project_synthesis", "gl_project_synthesis:fft", "gl_project_analysis"):
+    for k in ("gl_project_synthesis", "gl_project_synthesis:fft", "gl_project_analysis", "gl_project_analysis:fft"):
         counts[k] += fb_chunks * iters
+    # the same session with the analysis on the product route it took before
+    # (session_route forced to "product" for it), in turns old, new, new, old,
+    # host clock to the card's end, warm
+    fb_turns = {"product": [], "fft": []}
+    for turn in ("product", "fft", "fft", "product"):
+        with analysis_on_product(ss, turn == "product"):
+            fb_turns[turn].append(time_ms(lambda: streaming.scan_roundtrip(
+                fb_chain, fb_x, fb_chunk, "pghi_gl", generator=sgen(190)), 1, 1))
+    log(f"    {fb_n}/{fb_hop} pghi_gl roundtrip with the analysis on the product route vs the FFT route, in turns "
+        f"old, new, new, old (host clock, one call alone, warm): "
+        f"{' / '.join(f'{v:.2f}' for v in fb_turns['product'])} -> {' / '.join(f'{v:.2f}' for v in fb_turns['fft'])} ms")
     del y1, y2
     pq = rt_stream["quality"]
     log("  pghi_gl against pghi on the same sessions (kernel routes; spectral convergence): "
@@ -2133,11 +2208,9 @@ def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
         e_syn, e_pr = rel_err(y_k, y_p), (unit(gm, p_k) - unit(gm, p_p)).abs().max().item()
         kept = torch.equal(p_k[:, :ctx], gp[:, :ctx]) and torch.equal(p_k[:, lo:hi], gp[:, lo:hi])
         # the polish of that grid, gl_iterations projections in one launch,
-        # against its plain version (bit-identical), and beside as many
-        # two-launch projections (reported: chained projections carry the
-        # 1e-7 rounding differences of the two analyses, the FFT's and the
-        # product's, onwards; the session's spectral convergence is the
-        # quality bound)
+        # against its plain version and against as many two-launch
+        # projections (both bit-identical: the polish's synthesis is P's and
+        # its analysis the FFT-route analysis's frames_rfft with its pairs)
         iters_o = rt.gl_iterations
         q_k = ss.gl_polish(gm, gp.clone(), syn, rt.inv_window, rt.window, None, None, n_fft, hop, ctx, lo, hi, iters_o)
         q_p = ss.gl_polish_reference(gm, gp, rt.inv_window, rt.window, n_fft, hop, ctx, lo, hi, iters_o)
@@ -2146,7 +2219,7 @@ def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
             q_two = ss.gl_project(gm, q_two, syn, rt.inv_window, rt.window, WC, WS, n_fft, hop, ctx, lo, hi)
         e_pol = (unit(gm, q_k) - unit(gm, q_p)).abs().max().item()
         e_two = (unit(gm, q_k) - unit(gm, q_two)).abs().max().item()
-        same_pol = torch.equal(q_k, q_p)
+        same_pol, same_two = torch.equal(q_k, q_p), torch.equal(q_k, q_two)
         kept = kept and torch.equal(q_k[:, :ctx], gp[:, :ctx]) and torch.equal(q_k[:, lo:hi], gp[:, lo:hi])
         # the whole session against the plain session on the same magnitudes and angles
         n_ch = mag.shape[1] // T_c
@@ -2159,7 +2232,8 @@ def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
         log(f"  kernels vs plain, {label}: seeded recurrence |X| (cos, sin)(phase) off by {e_rt:.3e} (tol "
             f"1e-04; {100 * differ:.4f}% of bins differ); projection synthesis rel {e_syn:.3e} (tol 2e-05), "
             f"projection {e_pr:.3e} (tol 1e-04), polish of {iters_o} bit-identical to its plain version: {same_pol} "
-            f"({e_pol:.3e}), {iters_o} two-launch projections off it by {e_two:.3e}, pinned and frozen "
+            f"({e_pol:.3e}), {iters_o} two-launch projections bit-identical to it: {same_two} ({e_two:.3e}), "
+            f"pinned and frozen "
             f"rows kept: {kept}; session vs plain session "
             f"rel {rel_err(y_s, y_sp):.3e}, spectral convergence {s_k:.5f} / {s_p:.5f} (must be <= "
             f"{1.1 * s_p + 1e-3:.5f})")
@@ -2167,12 +2241,12 @@ def stream_pghi_gl_phase(args, dev, errs, counts, stream, rt_stream):
             require(torch.isfinite(out).all().item(), f"{what} {label}: not finite")
         require(y_s.shape == y_sp.shape and p_k.shape == gp.shape, f"{label}: shapes")
         require(e_rt <= 1e-4 and e_syn <= 2e-5 and e_pr <= 1e-4 and kept and s_k <= 1.1 * s_p + 1e-3
-                and same_pol and torch.isfinite(q_k).all().item(),
+                and same_pol and same_two and torch.isfinite(q_k).all().item(),
                 f"{label}: an O kernel disagrees with its plain version")
         errs["Opol"] = max(errs.get("Opol", 0.0), e_pol)
         errs["RTs"] = max(errs.get("RTs", 0.0), e_rt)
         errs["Osyn"] = max(errs.get("Osyn", 0.0), abs_err(y_k, y_p))
-        errs["Oana"] = max(errs.get("Oana", 0.0), e_pr)
+        errs["Oana_fft"] = max(errs.get("Oana_fft", 0.0), e_pr)
         return dict(mag=mag, m=m, prev=prev, pp=pp, a=a, gm=gm, gp=gp, lo=lo, hi=hi, syn=syn, WC=WC, WS=WS,
                     y=y_k, rt=rt)
 
@@ -2243,15 +2317,19 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
       route (1200 = 2^4 3 5^2): those launches are the smooth rows' counts.
       A 3072/768 ``pghi_gl`` session with chunks of 40 frames (a 46-frame
       grid no polish block holds) runs the two-launch projection, its
-      synthesis on the smooth route: the counts of O's smooth synthesis and
-      of its analysis.  The same sessions at
-      1344/336 (2^6 3 7), the complex decode and ``pghi_gl`` among them, run
-      R, L, M and the magnitude encode on the smooth route's radix-7
-      instances (those rows' counts) and the decodes and O's projections on
-      the product route (theirs), all within 1e-4 of the generic scan or by
-      spectral convergence against it; at 1408/352 (2^7 11) the complex and
-      random roundtrips, the encode and the ``pghi`` roundtrip run R, L, M
-      and the magnitude encode on the product route: those rows' counts.
+      synthesis and its analysis on the smooth route, as a 2560/1280 one
+      with 39-frame chunks and, on their radix-7 instances, a 3584/896 one
+      with 40-frame chunks and ``gl_context`` 1: the counts of O's smooth
+      synthesis and analysis.  The same sessions at 1344/336 (2^6 3 7), the
+      complex decode and ``pghi_gl`` among them, run R, L, M, the magnitude
+      encode, the decodes and O's polish on the smooth route's radix-7
+      instances (those rows' counts; the ``pghi_gl`` roundtrip timed in
+      turns with the two-launch route it took before), all within 1e-4 of
+      the generic scan or by spectral convergence against it; at 1408/352
+      (2^7 11) the complex and random roundtrips, the encode, the decodes
+      and the ``pghi`` and ``pghi_gl`` roundtrips run R, L, M, the magnitude
+      encode, P, S and O's two-launch projection on the product route: those
+      rows' counts.
     * E and F on the smooth route through the entry points: the DGT
       magnitude chain at 768/256 (``fuse_fit`` + ``fuse_forward`` on up to 16
       clips), its fit and forward within 1e-5 / 1e-4 of the eager chain's, as
@@ -2432,10 +2510,11 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
                 f"{t_w:.2f} ms; the first call is the line above (the two-launch route's first call: 18.9 ms, "
                 "PERF.md section 6)")
     # a smooth grid that the polish's block cannot hold keeps the two-launch
-    # projection, its synthesis on the decode's smooth instance: 3072/768
-    # (2^10 3) with chunks of 40 frames and gl_context 3 (46 grid frames, 233
-    # KB even with the grid in device memory); these launches are the
-    # Osyn_smooth row's count
+    # projection, its synthesis on the decode's smooth instance and its
+    # analysis on the smooth route: 3072/768 (2^10 3) with chunks of 40
+    # frames and gl_context 3 (46 grid frames, 233 KB even with the grid in
+    # device memory); these launches are the Osyn_smooth and Oana_smooth
+    # rows' counts
     n_t, hop_t, tc_t = 3072, 768, 40
     chunk_t = tc_t * hop_t
     xs_t = mono[:2, : 4 * chunk_t].contiguous()
@@ -2465,23 +2544,66 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     log(f"    vs the generic scan: spectral convergence {s_k:.5f} / {s_g:.5f} (must be <= {1.1 * s_g + 1e-3:.5f})")
     require(y_t.shape == y_tg.shape and torch.isfinite(y_t).all().item() and s_k <= 1.1 * s_g + 1e-3,
             f"{n_t}/{hop_t} pghi_gl: the two-launch session converges worse than the generic scan")
-    counts["gl_project_analysis"] += n_cht * iters_t          # O's analysis row counts these
     del y_t, y_tg
 
-    # R, L, M, the magnitude encode and the decodes (P, S and O's two-launch
-    # synthesis) on the smooth route's radix-7 instances, O's projection
-    # analysis on its product (the polish keeps 5-smooth): the same sessions
-    # at 1344/336 (2^6 3 7: 28 ms at 48 kHz); the decodes within 1e-4 of the
-    # generic scan
+    def two_launch_session(n_s, hop_s, tc_s, ctx_s, n_chunks, seed, seven):
+        """A pghi_gl roundtrip of 2 sessions whose grid no polish block holds,
+        on the two-launch projection with its analysis on the smooth route
+        (its radix-7 instance where ``seven``), against the generic scan by
+        spectral convergence within 1.1 s + 1e-3."""
+        chunk_s = tc_s * hop_s
+        xs_s = mono[:2, : n_chunks * chunk_s].contiguous()
+        chain_s = T.OverlapAdd(n_s, hop_s) + T.RealtimeSTFT(n_fft=n_s, hop_length=hop_s, inversion_mode="pghi_gl",
+                                                             gl_context=ctx_s)
+        iters_s = chain_s[1].gl_iterations
+        tp_s = ctx_s + tc_s + n_s // hop_s - 1
+        ssm = stream["ss"]
+        require(ssm.session_route(n_s, "project") == "smooth" and ssm._polish_plan(n_s, hop_s, tp_s) is None
+                and ssm.kernel_covers("project", n_s, hop_s, tc_s, ctx_s),
+                f"{n_s}/{hop_s}: the polish must refuse the {tp_s}-frame grid and the two-launch route take it")
+        w_s = torch.hann_window(n_s, device=dev)
+
+        def sc_s(y):
+            d, n = n_s - hop_s, xs_s.shape[-1]
+
+            def spec(v):
+                return torch.stft(v, n_s, hop_s, window=w_s, center=True, pad_mode="reflect",
+                                  return_complex=True).abs()
+            ref, m = spec(xs_s[..., : n - d]), spec(y[..., d:n])
+            k = min(m.shape[-1], ref.shape[-1]) - 2
+            return (torch.linalg.norm(m[..., 2:k] - ref[..., 2:k]) / torch.linalg.norm(ref[..., 2:k])).item()
+        y_s = route(f"{n_s}/{hop_s} pghi_gl roundtrip, gl_context {ctx_s}, {tc_s}-frame chunks (the two-launch "
+                    f"projection, its analysis on the smooth route{', radix 7' if seven else ''})",
+                    lambda: streaming.scan_roundtrip(chain_s, xs_s, chunk_s, "pghi_gl", generator=sgen(seed)),
+                    {"session_magnitude": 1, "rt_pghi_seeded": n_chunks, "gl_project_synthesis": n_chunks * iters_s,
+                     "gl_project_analysis": n_chunks * iters_s, "session_random_decode": 1}, main=False,
+                    front="smooth", seven=seven)
+        y_sg = generic(f"{n_s}/{hop_s} pghi_gl generic", lambda: streaming.scan_roundtrip(
+            chain_s, xs_s, chunk_s, "pghi_gl", generator=sgen(seed), backend="generic"))
+        s_k, s_g = sc_s(y_s), sc_s(y_sg)
+        log(f"    vs the generic scan: spectral convergence {s_k:.5f} / {s_g:.5f} (must be <= "
+            f"{1.1 * s_g + 1e-3:.5f})")
+        require(y_s.shape == y_sg.shape and torch.isfinite(y_s).all().item() and s_k <= 1.1 * s_g + 1e-3,
+                f"{n_s}/{hop_s} pghi_gl: the two-launch session converges worse than the generic scan")
+
+    # 3584/896 (2^9 7) with 40-frame chunks: the analysis's radix-7 instance;
+    # 2560/1280 (2^9 5) with 39-frame chunks, a shape the card refused while
+    # the analysis was a product of one block
+    two_launch_session(3584, 896, 40, 1, 4, 161, True)
+    two_launch_session(2560, 1280, 39, 3, 3, 162, False)
+
+    # R, L, M, the magnitude encode, the decodes and O's polish on the smooth
+    # route's radix-7 instances: the same sessions at 1344/336 (2^6 3 7: 28
+    # ms at 48 kHz); the decodes within 1e-4 of the generic scan
     n_x, hop_x, chunk_x = 1344, 336, 2688
     xs_x = mono[:4, :8 * chunk_x].contiguous()
     chain_x = T.OverlapAdd(n_x, hop_x) + T.RealtimeSTFT(n_fft=n_x, hop_length=hop_x)
     c_px = T.OverlapAdd(n_x, hop_x, device="cpu") + T.RealtimeSTFT(n_fft=n_x, hop_length=hop_x, device="cpu")
     ssx = stream["ss"]
     require(ssx.session_route(n_x, "encode") == "smooth" and ssx.session_route(n_x, "roundtrip", hop_x) == "smooth"
-            and ssx.session_route(n_x, "decode") == "smooth" and ssx.session_route(n_x, "polish") == "product",
-            "1344/336: the encodes, the roundtrips and the decodes must take the smooth route, the polish the "
-            "two-launch projection")
+            and ssx.session_route(n_x, "decode") == "smooth" and ssx.session_route(n_x, "polish") == "smooth"
+            and ssx._polish_plan(n_x, hop_x, 3 + chunk_x // hop_x + n_x // hop_x - 1) is not None,
+            "1344/336: the encodes, the roundtrips, the decodes and the polish must take the smooth route")
     y_x = route("1344/336 complex roundtrip (the smooth route, radix 7)",
                 lambda: streaming.scan_roundtrip(chain_x, xs_x, chunk_x), {"session_roundtrip": 1}, main=False,
                 front="smooth", seven=True)
@@ -2521,13 +2643,14 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     n_chx, iters_x = xs_x.shape[-1] // chunk_x, chain_x[1].gl_iterations
     for mode, expect in (
         ("pghi", {"session_magnitude": 1, "rt_pghi_phases": 1, "session_random_decode": 1}),
-        ("pghi_gl", {"session_magnitude": 1, "rt_pghi_seeded": n_chx, "gl_project_synthesis": n_chx * iters_x,
-                     "gl_project_analysis": n_chx * iters_x, "session_random_decode": 1}),
+        ("pghi_gl", {"session_magnitude": 1, "rt_pghi_seeded": n_chx, "gl_polish": n_chx,
+                     "session_random_decode": 1}),
     ):
         require(streaming.plan_roundtrip(chain_x, tuple(xs_x.shape), chunk_x, mode, device=dev) == mode,
                 f"1344/336 {mode}: must plan the session")
         y_kx = route(f"1344/336 {mode} roundtrip (the magnitude encode and the decodes on the smooth route, "
-                     "radix 7" + ("; O's analysis on its product)" if mode == "pghi_gl" else ")"),
+                     "radix 7" + ("; O's polish on its radix-7 instance, one launch a chunk)" if mode == "pghi_gl"
+                                  else ")"),
                      lambda: streaming.scan_roundtrip(chain_x, xs_x, chunk_x, mode, generator=sgen(156)), expect,
                      main=False, front="smooth", seven=True)
         y_gx = generic(f"1344/336 {mode} generic", lambda: streaming.scan_roundtrip(
@@ -2538,12 +2661,24 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
             + f"; spectral convergence {s_k:.5f} / {s_g:.5f} (must be <= {1.1 * s_g + 1e-3:.5f})")
         require(y_kx.shape == y_gx.shape and torch.isfinite(y_kx).all().item() and s_k <= 1.1 * s_g + 1e-3
                 and (mode == "pghi_gl" or e_kx <= 1e-4), f"1344/336 {mode}: the session differs from the generic scan")
-        if mode == "pghi_gl":       # the two-launch polish: O's analysis row counts these
-            counts["gl_project_analysis"] += n_chx * iters_x
+        if mode == "pghi_gl":
+            # the route before: 16 two-launch projections a chunk, the
+            # analysis a product (the polish refused, the analysis forced to
+            # its product route), in turns old, new, new, old, host clock
+            x_turns = {"two-launch": [], "polish": []}
+            for turn in ("two-launch", "polish", "polish", "two-launch"):
+                with analysis_on_product(ssx, turn == "two-launch", polish=False):
+                    x_turns[turn].append(time_ms(lambda: streaming.scan_roundtrip(
+                        chain_x, xs_x, chunk_x, mode, generator=sgen(156)), 1, 1))
+            log(f"    1344/336 pghi_gl roundtrip on {n_chx} x 16 two-launch projections (product analysis) vs "
+                f"{n_chx} radix-7 polish launches, in turns old, new, new, old (host clock, one call alone, warm): "
+                f"{' / '.join(f'{v:.2f}' for v in x_turns['two-launch'])} -> "
+                f"{' / '.join(f'{v:.2f}' for v in x_turns['polish'])} ms")
     # pghi_gl with 16 projections a chunk is held by spectral convergence, as
     # every pghi_gl session is: the projections amplify float32 differences
-    # of the analysis (a product here, cuFFT in the generic scan), and its
-    # distance to the generic scan is not a property of the decode (readings
+    # of the analysis (a product when these readings were taken, the polish's
+    # radix-7 FFT since, cuFFT in the generic scan), and its distance to the
+    # generic scan is not a property of the decode (readings
     # of tools/session_bounds.py: 3.3e-5 to 1.5e-3 over 4 clip sets and 2
     # seeds, the same sessions with the decodes on the product route 4.5e-5
     # to 1.5e-3).  With one projection a chunk the decodes and the analysis
@@ -2555,11 +2690,11 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     # Required within tol_gl1, between the two
     tol_gl1 = 1.5e-4
     chain_x1 = T.OverlapAdd(n_x, hop_x) + T.RealtimeSTFT(n_fft=n_x, hop_length=hop_x, gl_iterations=1)
-    y_kx = route("1344/336 pghi_gl roundtrip, one projection a chunk (the decodes on the smooth route, radix 7; "
-                 "O's analysis on its product)",
+    y_kx = route("1344/336 pghi_gl roundtrip, one projection a chunk (the decodes and O's polish on the smooth "
+                 "route, radix 7)",
                  lambda: streaming.scan_roundtrip(chain_x1, xs_x, chunk_x, "pghi_gl", generator=sgen(156)),
-                 {"session_magnitude": 1, "rt_pghi_seeded": n_chx, "gl_project_synthesis": n_chx,
-                  "gl_project_analysis": n_chx, "session_random_decode": 1}, main=False, front="smooth", seven=True)
+                 {"session_magnitude": 1, "rt_pghi_seeded": n_chx, "gl_polish": n_chx, "session_random_decode": 1},
+                 main=False, front="smooth", seven=True)
     y_gx = generic("1344/336 pghi_gl generic, one projection a chunk", lambda: streaming.scan_roundtrip(
         chain_x1, xs_x, chunk_x, "pghi_gl", generator=sgen(156), backend="generic"))
     s_k, s_g = sc_x(y_kx), sc_x(y_gx)
@@ -2569,7 +2704,6 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     require(y_kx.shape == y_gx.shape and torch.isfinite(y_kx).all().item() and s_k <= 1.1 * s_g + 1e-3
             and e_kx <= tol_gl1, "1344/336 pghi_gl, one projection a chunk: the session differs from the "
             "generic scan")
-    counts["gl_project_analysis"] += n_chx
     del y_x, f_x, y_mx, y_kx, y_gx, y_sx
 
     # R, L, M, the magnitude encode and the decodes (P, S, O's two-launch
@@ -2639,8 +2773,6 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
             f"(must be <= {1.1 * s_g + 1e-3:.5f})")
         require(y_ky.shape == y_gy.shape and torch.isfinite(y_ky).all().item() and s_k <= 1.1 * s_g + 1e-3,
                 f"1408/352 {mode}: the session converges worse than the generic scan")
-        if mode == "pghi_gl":       # the two-launch polish: O's analysis row counts these
-            counts["gl_project_analysis"] += n_chy * iters_y
     del y_y, f_y, y_sy, y_my, y_ky, y_gy
 
     # C and D through the Griffin-Lim invert of an STFT(n_fft, hop, hann) on 16
@@ -4479,6 +4611,54 @@ def main() -> int:
         f"(route, chunks, frames, FFTs); K at 896/224 {pghi_kernel._synth_fft_plan(896, 224)}, 1344/336 "
         f"{pghi_kernel._synth_fft_plan(1344, 336)} as (chunks, FFTs))")
     require(n_seven_j == 42 and n_seven_k == 321, "the radix-7 route of J and K: 42 and 321 shapes")
+    # O's polish on its radix-7 instance and O's analysis on the FFT and
+    # smooth routes: the new instances' registers and spill (the analysis
+    # runs the encode's block, two an SM: at most 128 registers; the polish
+    # one block an SM), the polish's layout against the source's at every
+    # even 7-smooth shape with a factor 7 (at the plan's teams and one team,
+    # resident or not, for grids of overlap, 14, 22 and 46 frames) and the
+    # plan's within shared memory, and the analysis's plan (the encode's: an
+    # even frame count) within shared memory and equal to the source's layout
+    # at every shape the two-launch route takes on the FFT and smooth routes
+    o_res = o_route_resources(_build.kernel_resources())
+    for name, res in sorted(o_res.items()):
+        log(f"    {name} instance: {res.get('registers')} registers, spill stores / loads "
+            f"{res.get('spill_stores', 0)} / {res.get('spill_loads', 0)} B")
+    require(set(o_res) == {"O seven resident", "O seven device", "Oana fft", "Oana smooth", "Oana seven"}
+            and all(o_res[k]["registers"] <= 128 for k in ("Oana fft", "Oana smooth", "Oana seven")),
+            f"O's new instances: five, the analysis's at most 128 registers (found {sorted(o_res)})")
+    n_pol7 = n_ana = 0
+    for n_fft_s in range(64, 4097, 2):
+        for ov_s in range(2, 9):
+            if n_fft_s % ov_s or (n_fft_s // ov_s) % 4:
+                continue
+            hop_s = n_fft_s // ov_s
+            if ss.session_route(n_fft_s, "project") != "product" and ss.kernel_covers("decode", n_fft_s, hop_s):
+                rows_a, teams_a = ss._encode_plan(n_fft_s, hop_s)
+                require(rows_a % 2 == 0 and lib.att_session_encode_fft_smem_bytes(rows_a, hop_s, n_fft_s, teams_a)
+                        == ss._encode_fft_smem_bytes(rows_a, hop_s, n_fft_s, teams_a) <= ff.MAX_SMEM,
+                        f"{n_fft_s}/{hop_s}: O's analysis plan is odd, over shared memory or unlike the source's")
+                n_ana += 1
+            if n_fft_s % 7 or not ff.fft_covers_smooth7(n_fft_s):
+                continue
+            require(ss.session_route(n_fft_s, "polish") == "smooth", f"{n_fft_s}: the polish must take radix 7")
+            for tp in (ov_s, 14, 22, 46):
+                plan = ss._polish_plan(n_fft_s, hop_s, tp)
+                for tm in sorted({1, plan[0] if plan else 1}):
+                    for res in (0, 1):
+                        require(lib.att_gl_polish_smem_bytes(tp, hop_s, n_fft_s, tm, res)
+                                == ss._polish_smem_bytes(tp, hop_s, n_fft_s, tm, bool(res)),
+                                f"{n_fft_s}/{hop_s}: the polish's radix-7 shared-memory size: wrapper and source "
+                                "disagree")
+                require(plan is None or ss._polish_smem_bytes(tp, hop_s, n_fft_s, *plan) <= ff.MAX_SMEM,
+                        f"{n_fft_s}/{hop_s}: the polish's radix-7 plan exceeds shared memory")
+            n_pol7 += 1
+    log(f"    O's polish on the radix-7 instance at {n_pol7} shapes, layouts agree (1344/336 and 14 grid frames "
+        f"{ss._polish_plan(1344, 336, 14)}, 896/224 {ss._polish_plan(896, 224, 14)} as (FFTs, grid in shared "
+        f"memory)); O's analysis on the FFT and smooth routes at {n_ana} shapes, plans even and within shared "
+        f"memory (4096/1024 {ss._encode_plan(4096, 1024)}, 3072/768 {ss._encode_plan(3072, 768)}, 3584/896 "
+        f"{ss._encode_plan(3584, 896)}, 1344/336 {ss._encode_plan(1344, 336)} as (frames, FFTs))")
+    require(n_ana == 483, f"O's analysis on the FFT and smooth routes: 483 shapes, found {n_ana}")
     # the FFT route of R / the magnitude encode and of E / F: both layouts at
     # every size the route takes, with the plans' team counts and fewer
     n_fft_checked = 0
@@ -4698,8 +4878,86 @@ def main() -> int:
         log(f"  O polish {n_fft}/{hop} lookahead {la} ({route} route, {tp} grid frames, plan {plan}): 4 and 16 "
             f"projections bit-identical to the plain version, |X| (cos, sin) off by {worst:.3e}; pinned, frozen "
             f"and zero rows untouched")
-        key = "Opol" if route == "fft" else "Opol_smooth"
+        key = "Opol" if route == "fft" else "Opol_smooth7" if n_fft % 7 == 0 else "Opol_smooth"
         errs[key] = max(errs.get(key, 0.0), worst)
+
+    def check_analysis(n_fft, hop, ctx, rows, seed):
+        """O's analysis on the FFT and smooth routes
+        (gl_project_analysis_fft_kernel, the two-launch projection's second
+        launch) against gl_project_analysis_reference on 3 sessions of a
+        random signal (phases up to 50 rad): bit-identical, one launch on its
+        route, the pinned, frozen and zero rows untouched; and a whole
+        two-launch projection (gl_project: P's synthesis, then the analysis)
+        against gl_project_reference, bit for bit."""
+        rt = T.RealtimeSTFT(n_fft=n_fft, hop_length=hop, inversion_mode="pghi_gl", gl_context=ctx)
+        ov, Fb = n_fft // hop, n_fft // 2 + 1
+        tp = ctx + rows + ov - 1
+        tx = tp - (ov - 1)
+        g = torch.Generator(device=dev).manual_seed(args.seed + seed)
+        y = torch.randn((3, tp * hop), generator=g, device=dev)
+        gm = torch.rand((3, tp, Fb), generator=g, device=dev)
+        gm[:, -(ov - 1):] = 0.0
+        gp = (2 * torch.rand((3, tp, Fb), generator=g, device=dev) - 1) * 50.0
+        lo, hi = rt.gl_frozen(rows)
+        route = ss.session_route(n_fft, "project")
+        require(route != "product" and ss.kernel_covers("project", n_fft, hop, rows, ctx),
+                f"the analysis must take {n_fft}/{hop} with {rows} frames on the FFT or smooth route")
+        ss.reset_launches()
+        a_k = gp.clone()
+        ss._launch_project_analysis(y, a_k, ss._project_operands(rt.window, None, None, n_fft, dev), n_fft, hop, tx,
+                                    ctx, lo, hi)
+        a_p = ss.gl_project_analysis_reference(y, gp, rt.window, n_fft, hop, ctx, lo, hi)
+        torch.cuda.synchronize()
+        require(ss.launches["gl_project_analysis"] == 1 and ss.routes[f"gl_project_analysis:{route}"] == 1
+                and sum(ss.launches.values()) == 1, f"analysis {n_fft}/{hop}: expected one launch on the {route} route")
+        same = torch.equal(a_k, a_p)
+        kept = (torch.equal(a_k[:, :ctx], gp[:, :ctx]) and torch.equal(a_k[:, lo:hi], gp[:, lo:hi])
+                and torch.equal(a_k[:, tx:], gp[:, tx:]))
+        syn = ss._decode_operands(rt.inv_window, float(ov), n_fft, hop)
+        p_k = ss.gl_project(gm, gp.clone(), syn, rt.inv_window, rt.window, None, None, n_fft, hop, ctx, lo, hi)
+        p_p = ss.gl_project_reference(gm, gp, rt.inv_window, rt.window, n_fft, hop, ctx, lo, hi)
+        torch.cuda.synchronize()
+        same_p = torch.equal(p_k, p_p)
+        e = (a_k - a_p).abs().max().item()
+        log(f"  O analysis {n_fft}/{hop} ({route} route{', radix 7' if n_fft % 7 == 0 else ''}, gl_context {ctx}, "
+            f"{rows} polished frames, plan {ss._encode_plan(n_fft, hop)} as (frames, FFTs)): bit-identical to its "
+            f"plain version {same} (max abs {e:.3e}); pinned, frozen and zero rows untouched {kept}; the two-launch "
+            f"projection bit-identical to its plain version {same_p}")
+        require(same and kept and same_p and torch.isfinite(a_k).all().item(),
+                f"analysis {n_fft}/{hop}: differs from its plain version")
+        key = "Oana_" + ("fft" if route == "fft" else "smooth7" if n_fft % 7 == 0 else "smooth")
+        errs[key] = max(errs.get(key, 0.0), e)
+
+    def check_two_halves(n_fft, hop, seed):
+        """gl_iterations two-launch projections (gl_project, its synthesis and
+        analysis on the FFT or smooth route) against one polish launch of as
+        many projections on the same grid (3 sessions, 3 + 8 + overlap - 1
+        frames, phases up to 50 rad): bit for bit, since the polish's
+        synthesis is P's and its analysis the same frames_rfft with the same
+        pairs."""
+        rt = T.RealtimeSTFT(n_fft=n_fft, hop_length=hop, inversion_mode="pghi_gl")
+        ov, Fb, ctx, iters = n_fft // hop, n_fft // 2 + 1, rt.gl_context, rt.gl_iterations
+        tp = ctx + 8 + ov - 1
+        g = torch.Generator(device=dev).manual_seed(args.seed + seed)
+        gm = torch.rand((3, tp, Fb), generator=g, device=dev)
+        gm[:, -(ov - 1):] = 0.0
+        gp = (2 * torch.rand((3, tp, Fb), generator=g, device=dev) - 1) * 50.0
+        lo, hi = rt.gl_frozen(8)
+        syn = ss._decode_operands(rt.inv_window, float(ov), n_fft, hop)
+        require(ss._polish_plan(n_fft, hop, tp) is not None, f"the polish must take {n_fft}/{hop} at {tp} frames")
+        q_k = ss.gl_polish(gm, gp.clone(), syn, rt.inv_window, rt.window, None, None, n_fft, hop, ctx, lo, hi, iters)
+        ss.reset_launches()
+        q_two = gp.clone()
+        for _ in range(iters):
+            q_two = ss.gl_project(gm, q_two, syn, rt.inv_window, rt.window, None, None, n_fft, hop, ctx, lo, hi)
+        torch.cuda.synchronize()
+        route = ss.session_route(n_fft, "project")
+        require(ss.routes[f"gl_project_analysis:{route}"] == iters and ss.launches["gl_project_synthesis"] == iters,
+                f"{n_fft}/{hop}: the two-launch projections must run on the {route} route")
+        same = torch.equal(q_k, q_two)
+        log(f"  O at {n_fft}/{hop} ({route} route): {iters} two-launch projections bit-identical to one polish launch "
+            f"of {iters}: {same} (max abs {(q_k - q_two).abs().max().item():.3e})")
+        require(same, f"{n_fft}/{hop}: the two-launch projections differ from the polish")
 
     mag_t = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=N_FFT)
     stft_t = T.STFT(n_fft=N_FFT, hop_length=HOP)
@@ -4721,6 +4979,19 @@ def main() -> int:
     for n_fft, hop in SESSION_SMOOTH_SHAPES:
         for la in (0, 4):
             check_polish(n_fft, hop, la, 300 + n_fft + la)
+    # its radix-7 instance (2^6 3 7, 2^7 7); O's analysis on the FFT route
+    # (4096/1024, gl_context 1, 40 frames: a grid no polish block holds), the
+    # smooth route (3072/768, 40 frames; 2560/1280, 39) and its radix-7
+    # instance (3584/896, gl_context 1, 40 frames, which the polish refuses;
+    # 1344/336, 8 frames); the two halves against the polish
+    for n_fft, hop in ((1344, 336), (896, 224)):
+        for la in (0, 4):
+            check_polish(n_fft, hop, la, 300 + n_fft + la)
+    for i, (n_fft, hop, ctx, rows) in enumerate(((4096, 1024, 1, 40), (3072, 768, 3, 40), (2560, 1280, 3, 39),
+                                                 (3584, 896, 1, 40), (1344, 336, 3, 8))):
+        check_analysis(n_fft, hop, ctx, rows, 320 + i)
+    for i, (n_fft, hop) in enumerate(((1024, 256), (1200, 300), (1344, 336))):
+        check_two_halves(n_fft, hop, 330 + i)
     spec_main = stft_t.forward(mono)
     gl_mag = spec_main.abs()
     del spec_main
@@ -7368,62 +7639,152 @@ def main() -> int:
                                      stride=(1, gf_hop))
         return y.reshape(SB, -1)[:, : gf_tp * gf_hop]
 
-    # O's projection analysis where its route now runs: the two-launch
-    # projection of a grid that the polish does not take, here 1344/336's
-    # (2^6 3 7: the polish keeps 5-smooth; the synthesis before it runs the
-    # decode's radix-7 instance); the analysis against its plain version and
-    # the float64 analysis on the synthesis's signal, the pinned and frozen
-    # rows untouched.  A phase is read as |Y| (cos, sin)(phase) over the
-    # session's largest |Y|, Y the float64 re-framed spectrum: a bin's angle
-    # is only as good as its magnitude, and a random grid's re-framed
-    # spectrum has near-silent bins whose angle float32 rounds to 1e-3 rad
-    # and worse (read against the grid's magnitude instead, the plain
-    # version's own distance to the float64 analysis moved 4.5x with the
-    # float32 rounding of its input).  Readings of tools/session_bounds.py
-    # (8 grids of 64 sessions): kernel vs plain 4.2e-7 to 5.4e-7, kernel vs
-    # float64 3.0e-7 to 3.5e-7, plain vs float64 4.2e-7 to 5.5e-7; the basis
-    # perturbed by 1e-5 reads 6.1e-6 to 6.9e-6.  Both of the kernel's
-    # distances required within tol_a, between the two
+    # O's projection analysis on the product route (Oana), where it now runs:
+    # the two-launch projection of 1408/352's grid above (2^7 11; its
+    # synthesis on the decode's product route); the analysis against its
+    # plain version and the float64 analysis on the synthesis's signal, the
+    # pinned and frozen rows untouched.  A phase is read as |Y| (cos,
+    # sin)(phase) over the session's largest |Y|, Y the float64 re-framed
+    # spectrum: a bin's angle is only as good as its magnitude, and a random
+    # grid's re-framed spectrum has near-silent bins whose angle float32
+    # rounds to 1e-3 rad and worse (read against the grid's magnitude
+    # instead, the plain version's own distance to the float64 analysis moved
+    # 4.5x with the float32 rounding of its input).  Readings of
+    # tools/session_bounds.py when this check ran at 1344/336 (8 grids of 64
+    # sessions): kernel vs plain 4.2e-7 to 5.4e-7, kernel vs float64 3.0e-7
+    # to 3.5e-7, plain vs float64 4.2e-7 to 5.5e-7; the basis perturbed by
+    # 1e-5 reads 6.1e-6 to 6.9e-6 (the tool reads 1408/352 since).  Both of
+    # the kernel's distances required within tol_a, between the two
     tol_a = 2e-6
+    gz_tx = gz_tp - (ov_z - 1)
+    gz_lo, gz_hi = z_rt.gl_frozen(8)
+    gz_wc, gz_ws = ss._ana_basis(z_rt.window, n_fft_z, ss._k_analysis(n_fft_z))
+    gz_y = ss._launch_decode(gm_z, gp_z, gz_ops, n_fft_z, hop_z, rows=ss.PROJECT_SYN_ROWS, name="gl_project_synthesis")
+    gz_scratch = gp_z.clone()
+    require(ss.session_route(n_fft_z, "project") == "product", "1408/352: O's analysis must take the product route")
+
+    def plain_proj_analysis_z():
+        fr = gz_y.unfold(-1, n_fft_z, hop_z)[:, g_ctx:gz_tx]
+        return torch.atan2(torch.matmul(fr, gz_ws[:n_fft_z]), torch.matmul(fr, gz_wc[:n_fft_z]))
+
+    ss._launch_project_analysis(gz_y, gz_scratch, (gz_wc, gz_ws), n_fft_z, hop_z, gz_tx, g_ctx, gz_lo, gz_hi)
+    a_p = plain_proj_analysis_z()
+    upd_z = torch.ones(gz_tx - g_ctx, dtype=torch.bool, device=dev)
+    upd_z[gz_lo - g_ctx: gz_hi - g_ctx] = False
+    fr64 = gz_y.double().unfold(-1, n_fft_z, hop_z)[:, g_ctx:gz_tx]
+    re64, im64 = torch.matmul(fr64, gz_wc[:n_fft_z].double()), torch.matmul(fr64, gz_ws[:n_fft_z].double())
+    a_64, y_u = torch.atan2(im64, re64), torch.hypot(re64, im64)[:, upd_z]
+
+    def angle_off(a, b):
+        return (unit_spec(y_u, a[:, upd_z]) - unit_spec(y_u, b[:, upd_z])).abs().max().item()
+    e_oa = angle_off(gz_scratch[:, g_ctx:gz_tx], a_p)
+    e_p64, e_k64 = angle_off(a_p, a_64), angle_off(gz_scratch[:, g_ctx:gz_tx], a_64)
+    kept_z = torch.equal(gz_scratch[:, :g_ctx], gp_z[:, :g_ctx]) and torch.equal(
+        gz_scratch[:, gz_lo:gz_hi], gp_z[:, gz_lo:gz_hi])
+    log(f"  O's projection analysis at 1408/352 (the product route, {gz_tx - g_ctx} polished frames, {SB} sessions) "
+        f"on the product synthesis's signal, |Y| (cos, sin): against its plain version {e_oa:.3e}, against the "
+        f"float64 analysis {e_k64:.3e} (tol {tol_a:g} each; the plain version's {e_p64:.3e}); pinned and frozen rows "
+        f"kept: {kept_z}")
+    require(e_oa <= tol_a and e_k64 <= tol_a and kept_z,
+            "O's projection analysis at 1408/352 disagrees with its plain version")
+    del fr64, re64, im64, a_64
+    errs["Oana"] = max(errs.get("Oana", 0.0), e_oa)
+
+    # O's analysis on the FFT route (Oana_fft: 4096/1024's grid above, 1 +
+    # 40 + 3 frames, which no polish block holds), the smooth route
+    # (Oana_smooth: 3072/768, 3 + 40 + 3 frames) and its radix-7 instance
+    # (Oana_smooth7: 1344/336's grid above, 3 + 8 + 3 frames, the product
+    # row's input before), each on its synthesis's signal.  What the function
+    # needs: the samples of the polished frames read once ((Tp - ctx) hop a
+    # session), the phases of the rows it writes (not frozen) written once;
+    # an FFT, the window and an atan2 (20) a written row and bin.  Its design:
+    # frames_rfft of every polished row, pairs in blocks of the encode's plan
+    # (fft_design_flops / smooth_design_flops), an atan2 a bin
+    gs_n, gs_hop = 3072, 768
+    gs_ov, gs_F = gs_n // gs_hop, gs_n // 2 + 1
+    gs_tp = g_ctx + 40 + gs_ov - 1
+    gs_win = torch.hann_window(gs_n, device=dev)
+    gm_s = torch.rand((SB, gs_tp, gs_F), generator=gq_g, device=dev)
+    gm_s[:, -(gs_ov - 1):] = 0.0
+    gp_s = 2 * math.pi * torch.rand((SB, gs_tp, gs_F), generator=gq_g, device=dev)
+    gs_y = ss._launch_decode(gm_s, gp_s, ss._decode_operands(gs_win, float(gs_ov), gs_n, gs_hop), gs_n, gs_hop,
+                             rows=ss.PROJECT_SYN_ROWS, name="gl_project_synthesis")
+    gf_y = ss._launch_decode(gm_f, gp_f, gf_ops, gf_n, gf_hop, rows=ss.PROJECT_SYN_ROWS, name="gl_project_synthesis")
+    gx_y = ss._launch_decode(gm_x, gp_x, gx_ops, n_fft_x, hop_x, rows=ss.PROJECT_SYN_ROWS, name="gl_project_synthesis")
     gx_tx = gx_tp - (ov_x - 1)
     gx_lo, gx_hi = x_rt.gl_frozen(8)
     gx_wc, gx_ws = ss._ana_basis(x_rt.window, n_fft_x, ss._k_analysis(n_fft_x))
-    gx_y = ss._launch_decode(gm_x, gp_x, gx_ops, n_fft_x, hop_x, rows=ss.PROJECT_SYN_ROWS, name="gl_project_synthesis")
-    gx_scratch = gp_x.clone()
 
-    def plain_proj_analysis_x():
-        fr = gx_y.unfold(-1, n_fft_x, hop_x)[:, g_ctx:gx_tx]
-        return torch.atan2(torch.matmul(fr, gx_ws[:n_fft_x]), torch.matmul(fr, gx_wc[:n_fft_x]))
+    def ana_case(key, n, hop, ctx, tp, y, gp_, w):
+        """What a row of O's analysis needs at one shape: the run, the plain
+        version, the yardstick, the bound, the design's ceiling, and the
+        product instance at the same shape (for the turns)."""
+        ov_a, F_a = n // hop, n // 2 + 1
+        tx = tp - (ov_a - 1)
+        lo, hi = T.RealtimeSTFT(n_fft=n, hop_length=hop, inversion_mode="pghi_gl", gl_context=ctx).gl_frozen(
+            tx - ctx)
+        route_a = ss.session_route(n, "project")
+        require(route_a != "product", f"{key}: {n}/{hop} must take the FFT or smooth route")
+        ops = ss._project_operands(w, None, None, n, dev)
+        wc, ws = ss._ana_basis(w, n, ss._k_analysis(n))
+        scratch = gp_.clone()
+        upd = tx - ctx - (hi - lo)
+        el = float(SB * upd * F_a)
+        rows_a = ss._encode_plan(n, hop)[0]
+        frames = SB * sum(2 * -(-min(rows_a, tx - ctx - i) // 2) for i in range(0, tx - ctx, rows_a))
+        design = (fft_design_flops if route_a == "fft" else smooth_design_flops)(n, frames)
+        prod = 4.0 * SB * (tx - ctx) * ss._k_analysis(n) * 128 * -(-F_a // 128)
 
-    def lib_proj_analysis_x():
-        fr = gx_y.unfold(-1, n_fft_x, hop_x)[:, g_ctx:gx_tx] * x_rt.window
-        return torch.angle(torch.fft.rfft(fr, n=n_fft_x))
+        def old():
+            with analysis_on_product(ss):
+                ss._launch_project_analysis(y, scratch, (wc, ws), n, hop, tx, ctx, lo, hi)
+        return dict(
+            run=lambda: ss._launch_project_analysis(y, scratch, ops, n, hop, tx, ctx, lo, hi),
+            plain=lambda: ss.gl_project_analysis_reference(y, gp_, w, n, hop, ctx, lo, hi),
+            library=lambda: torch.angle(torch.fft.rfft(y.unfold(-1, n, hop)[:, ctx:tx] * w, n=n)),
+            bound=bound_of(4.0 * SB * (tp - ctx) * hop + 4.0 * el,
+                           2.5 * n * math.log2(n) * SB * upd + n * SB * upd + 20.0 * el),
+            ceiling=ceiling_of(design + 20.0 * el), old=old, old_ceiling=ceiling_of(prod + 20.0 * el))
 
-    ss._launch_project_analysis(gx_y, gx_scratch, gx_wc, gx_ws, n_fft_x, hop_x, gx_tx, g_ctx, gx_lo, gx_hi)
-    a_p = plain_proj_analysis_x()
-    upd_x = torch.ones(gx_tx - g_ctx, dtype=torch.bool, device=dev)
-    upd_x[gx_lo - g_ctx: gx_hi - g_ctx] = False
-    fr64 = gx_y.double().unfold(-1, n_fft_x, hop_x)[:, g_ctx:gx_tx]
-    re64, im64 = torch.matmul(fr64, gx_wc[:n_fft_x].double()), torch.matmul(fr64, gx_ws[:n_fft_x].double())
-    a_64, y_u = torch.atan2(im64, re64), torch.hypot(re64, im64)[:, upd_x]
+    ana_f = ana_case("Oana_fft", gf_n, gf_hop, gf_ctx, gf_tp, gf_y, gp_f, gf_win)
+    ana_s = ana_case("Oana_smooth", gs_n, gs_hop, g_ctx, gs_tp, gs_y, gp_s, gs_win)
+    ana_x = ana_case("Oana_smooth7", n_fft_x, hop_x, g_ctx, gx_tp, gx_y, gp_x, x_rt.window)
+    gz_el = float(SB * (gz_tx - g_ctx - (gz_hi - gz_lo)) * F_z)
+    gz_upd = gz_tx - g_ctx - (gz_hi - gz_lo)
+    gz_samples = 4.0 * SB * (gz_tp - g_ctx) * hop_z
+    gz_ana_flops = 4.0 * SB * (gz_tx - g_ctx) * ss._k_analysis(n_fft_z) * 128 * -(-F_z // 128)
+    # O's polish on its radix-7 instance (Opol_smooth7): 1344/336's grid above
+    # (3 pinned + 8 + 3 zero frames, 64 sessions), gl_iterations projections
+    # in one launch, counted as the Opol_smooth row counts its own;
+    # yardstick gl_iterations times the grid's two projection yardsticks
+    gx_iters = x_rt.gl_iterations
+    gx_pol, gx_pol_old = gp_x.clone(), gp_x.clone()
+    gx_plan = ss._polish_plan(n_fft_x, hop_x, gx_tp)
+    require(gx_plan is not None and ss.session_route(n_fft_x, "polish") == "smooth",
+            "phase 5: the polish must hold 1344/336's 14-frame grid on its radix-7 instance")
+    gx_rows = gx_tx - g_ctx
+    gx_upd = gx_rows - (gx_hi - gx_lo)
+    gx_el = float(SB * gx_upd * F_x)
+    gx_pframes = gx_tp + ov_x - 1
+    gx_pairs = sum((gx_pframes - 1 - c) // (2 * ov_x) + 1 for c in range(ov_x))
+    polx_design = gx_iters * (smooth_design_flops(n_fft_x, 2 * SB * gx_pairs)
+                              + smooth_design_flops(n_fft_x, 2 * SB * -(-gx_rows // 2))
+                              + 22.0 * SB * gx_tp * F_x + 20.0 * gx_el)
+    polx_need = gx_iters * (2.5 * n_fft_x * math.log2(n_fft_x) * (gx_fr + SB * gx_upd)
+                            + n_fft_x * (gx_fr + SB * gx_upd) + 22.0 * gx_fr * F_x + 20.0 * gx_el)
+    lib_ana_x = ana_x["library"]
 
-    def angle_off(a, b):
-        return (unit_spec(y_u, a[:, upd_x]) - unit_spec(y_u, b[:, upd_x])).abs().max().item()
-    e_oa = angle_off(gx_scratch[:, g_ctx:gx_tx], a_p)
-    e_p64, e_k64 = angle_off(a_p, a_64), angle_off(gx_scratch[:, g_ctx:gx_tx], a_64)
-    kept_x = torch.equal(gx_scratch[:, :g_ctx], gp_x[:, :g_ctx]) and torch.equal(
-        gx_scratch[:, gx_lo:gx_hi], gp_x[:, gx_lo:gx_hi])
-    log(f"  O's projection analysis at 1344/336 ({gx_tx - g_ctx} polished frames, {SB} sessions) on the radix-7 "
-        f"synthesis's signal, |Y| (cos, sin): against its plain version {e_oa:.3e}, against the float64 analysis "
-        f"{e_k64:.3e} (tol {tol_a:g} each; the plain version's {e_p64:.3e}); pinned and frozen rows kept: {kept_x}")
-    require(e_oa <= tol_a and e_k64 <= tol_a and kept_x,
-            "O's projection analysis at 1344/336 disagrees with its plain version")
-    del fr64, re64, im64, a_64
-    errs["Oana"] = max(errs.get("Oana", 0.0), e_oa)
-    gx_el = float(SB * (gx_tx - g_ctx - (gx_hi - gx_lo)) * F_x)
-    gx_upd = gx_tx - g_ctx - (gx_hi - gx_lo)
-    gx_samples = 4.0 * SB * (gx_tp - g_ctx) * hop_x
-    gx_ana_flops = 4.0 * SB * (gx_tx - g_ctx) * ss._k_analysis(n_fft_x) * 128 * -(-F_x // 128)
+    def lib_polish_x():
+        for _ in range(gx_iters):
+            lib_proj_synth_x()
+            lib_ana_x()
+
+    def polish_x_old():
+        # the route 1344/336 took before: gl_iterations two-launch
+        # projections, the analysis a product
+        with analysis_on_product(ss, polish=False):
+            ss.gl_polish(gm_x, gx_pol_old, gx_ops, x_rt.inv_window, x_rt.window, gx_wc, gx_ws, n_fft_x, hop_x, g_ctx,
+                         gx_lo, gx_hi, gx_iters)
     # O's polish on the smooth route: the 1200/300 grid above (3 pinned + 8 +
     # 3 zero frames, 64 sessions), gl_iterations projections in one launch;
     # what the function needs as the Opol row counts it, its design the
@@ -7543,14 +7904,34 @@ def main() -> int:
              library=lib_polish_q, bound=bound_of(8.0 * gq_fr * F_q + 4.0 * gq_el, polq_need),
              ceiling=ceiling_of(polq_design),
              resources=kp_res.get("O resident" if gq_plan[1] else "O device")),
-        dict(key="Oana", name="gl_project_analysis", source=stream_src,
-             replaces=stream_tpu + ":940", launches=counts["gl_project_analysis"],
-             run=lambda: ss._launch_project_analysis(gx_y, gx_scratch, gx_wc, gx_ws, n_fft_x, hop_x, gx_tx, g_ctx,
-                                                     gx_lo, gx_hi),
-             plain=plain_proj_analysis_x, library=lib_proj_analysis_x,
-             bound=bound_of(gx_samples + 4.0 * gx_el,
-                            2.5 * n_fft_x * math.log2(n_fft_x) * SB * gx_upd + n_fft_x * SB * gx_upd + 20.0 * gx_el),
-             ceiling=ceiling_of(gx_ana_flops + 20.0 * gx_el)),
+        dict(key="Opol_smooth7", name="gl_polish_smooth7", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="smooth", replaces=stream_tpu + ":940", launches=counts["gl_polish:smooth7"],
+             run=lambda: ss.gl_polish(gm_x, gx_pol, gx_ops, x_rt.inv_window, x_rt.window, None, None, n_fft_x, hop_x,
+                                      g_ctx, gx_lo, gx_hi, gx_iters),
+             plain=lambda: ss.gl_polish_reference(gm_x, gp_x, x_rt.inv_window, x_rt.window, n_fft_x, hop_x, g_ctx,
+                                                  gx_lo, gx_hi, gx_iters),
+             library=lib_polish_x, bound=bound_of(8.0 * gx_fr * F_x + 4.0 * gx_el, polx_need),
+             ceiling=ceiling_of(polx_design),
+             resources=o_res["O seven resident" if gx_plan[1] else "O seven device"], old=polish_x_old),
+        dict(key="Oana", name="gl_project_analysis", source=stream_src, front_end="product",
+             replaces=stream_tpu + ":940", launches=counts["gl_project_analysis:product"],
+             run=lambda: ss._launch_project_analysis(gz_y, gz_scratch, (gz_wc, gz_ws), n_fft_z, hop_z, gz_tx, g_ctx,
+                                                     gz_lo, gz_hi),
+             plain=plain_proj_analysis_z,
+             library=lambda: torch.angle(torch.fft.rfft(gz_y.unfold(-1, n_fft_z, hop_z)[:, g_ctx:gz_tx] * z_rt.window,
+                                                        n=n_fft_z)),
+             bound=bound_of(gz_samples + 4.0 * gz_el,
+                            2.5 * n_fft_z * math.log2(n_fft_z) * SB * gz_upd + n_fft_z * SB * gz_upd + 20.0 * gz_el),
+             ceiling=ceiling_of(gz_ana_flops + 20.0 * gz_el)),
+        dict(key="Oana_fft", name="gl_project_analysis_fft", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="fft", replaces=stream_tpu + ":940", launches=counts["gl_project_analysis:fft"],
+             resources=o_res["Oana fft"], **ana_f),
+        dict(key="Oana_smooth", name="gl_project_analysis_smooth", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="smooth", replaces=stream_tpu + ":940", launches=counts["gl_project_analysis:smooth"],
+             resources=o_res["Oana smooth"], **ana_s),
+        dict(key="Oana_smooth7", name="gl_project_analysis_smooth7", source=stream_src + " (+ csrc/fft_smem.cuh)",
+             front_end="smooth", replaces=stream_tpu + ":940", launches=counts["gl_project_analysis:smooth7"],
+             resources=o_res["Oana seven"], **ana_x),
         dict(key="RTs", name="rt_pghi_seeded", source="acids_transforms_tpu_torch/csrc/pghi.cu",
              replaces=stream_tpu + ":668", launches=counts["rt_pghi_seeded"],
              run=lambda: ss._launch_rt_pghi(s_m, s_a, *rs_args, s_prev, s_pp),
@@ -7634,6 +8015,42 @@ def main() -> int:
             f"library {'none' if l_ms is None else format(l_ms, '.3f') + ' ms'}{ratio}, bound {b_ms:.3f} ms by "
             f"{b_by} ({100 * b_ms / k_ms:.1f}% of it reached); fp32 ceiling of this design "
             f"{s['ceiling']:.3f} ms ({100 * s['ceiling'] / k_ms:.1f}%){single}{extra}")
+
+    # O's new instances in turns with the route their shape took before (the
+    # analysis's product instance at the same shape; at 1344/336 the polish's
+    # gl_iterations two-launch projections with it) and with the library
+    # yardstick: 5 rounds, each the card's time a call with 20 calls queued
+    # behind a sleep kernel (host_and_device_ms), in the order old, new,
+    # library, then back; medians.  A call of thousands of small launches (the
+    # polish's yardstick) fills the launch queue behind the sleep, and the
+    # host then waits for the card: such a turn is timed back to back
+    # (device_ms) instead and marked "b2b".  The yardstick's median replaces
+    # its back-to-back time in the row (its spread between calls reached
+    # 2.4-4x at these small grids), which stays beside it as library_b2b_ms
+    for s in specs:
+        if "old" not in s:
+            continue
+        turns = {"old": [], "new": [], "library": []}
+        b2b = set()
+        order = (("old", s["old"]), ("new", s["run"]), ("library", s["library"]))
+        for rnd in range(5):
+            for k, fn in (order if rnd % 2 == 0 else order[::-1]):
+                t = host_and_device_ms(fn, 20)[1]
+                if t is None:
+                    b2b.add(k)
+                    t = device_ms(fn, 5, 1, 1)
+                turns[k].append(t)
+        med = {k: statistics.median(v) for k, v in turns.items()}
+        row = next(r for r in kernels if r["name"] == s["name"])
+        row["library_b2b_ms"], row["library_ms"], row["turns_ms"] = row["library_ms"], med["library"], med
+        if "old_ceiling" in s:
+            row["old_design_fma_ceiling_ms"] = s["old_ceiling"]
+
+        def fmt(k):
+            return " / ".join(f"{v:.4f}" for v in turns[k]) + (" (b2b)" if k in b2b else "")
+        log(f"  {s['key']} in turns with the route before and the library, 5 rounds behind a sleep kernel (card ms a "
+            f"call): old {fmt('old')}; new {fmt('new')}; library {fmt('library')}; medians old {med['old']:.4f}, new "
+            f"{med['new']:.4f}, library {med['library']:.4f}")
 
     # A through the registered operator against the direct wrapper, in turns
     # (direct, operator, ...), each back to back and one call alone: what the

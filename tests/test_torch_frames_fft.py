@@ -206,7 +206,9 @@ def test_no_route_counted_on_the_cpu():
                               "session_complex_decode:fft", "session_complex_decode:smooth",
                               "session_complex_decode:product",
                               "gl_project_synthesis:fft", "gl_project_synthesis:smooth",
-                              "gl_project_synthesis:product", "gl_polish:fft", "gl_polish:smooth"}
+                              "gl_project_synthesis:product", "gl_polish:fft", "gl_polish:smooth",
+                              "gl_project_analysis:fft", "gl_project_analysis:smooth",
+                              "gl_project_analysis:product"}
     assert set(SP.routes) == {"fused_melspec_fullk:fft", "fused_melspec_fullk:smooth", "fused_melspec_fullk:product",
                               "fused_melspec_stats_fullk:fft", "fused_melspec_stats_fullk:smooth",
                               "fused_melspec_stats_fullk:product",

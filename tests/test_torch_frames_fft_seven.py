@@ -268,10 +268,10 @@ def test_route_rule():
     for n, hop in SESSION_SHAPES + [(1792, 448), (1680, 420), (1764, 588)]:
         assert PK.session_route(n, "encode") == "smooth" and PK.session_route(n, "roundtrip", hop) == "smooth"
         assert PK._encode_plan(n, hop)[1] > 0 and PK._roundtrip_plan(n, hop)[1] > 0
-        # the decodes: n_fft alone, their radix-7 instance; the polish keeps 5-smooth
-        assert PK.session_route(n, "polish") == "product" and PK.session_route(n, "decode", hop) == "smooth"
+        # the decodes and O's polish: n_fft alone, their radix-7 instances
+        assert PK.session_route(n, "polish") == "smooth" and PK.session_route(n, "decode", hop) == "smooth"
         assert PK._decode_plan(n, hop)[1] > 0 and PK._decode_plan(n, hop, PK.PROJECT_SYN_ROWS)[1] > 0
-        assert PK._polish_plan(n, hop, 20) is None
+        assert PK._polish_plan(n, hop, 20) is not None
     # the other kernels keep fft_covers_smooth: their product / factored routes at 896/224 and 1344/336
     # (the magnitude kernels E, F, A and B, K's synthesis and J take their radix-7 instance there, G, H,
     # C, D and I do not)

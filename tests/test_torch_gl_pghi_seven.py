@@ -129,11 +129,11 @@ def test_the_plans_read_the_blocks_the_registers_allow(monkeypatch):
 
 def test_other_kernels_keep_their_routes():
     """C, D and I keep the product route (and its chain limit) at 896/224
-    and 1344/336, O's polish its two-launch projection; J and K's synthesis
-    keep the product route at 1408/352 (2^7 11)."""
+    and 1344/336 (O's polish takes its radix-7 instance there); J and K's
+    synthesis keep the product route at 1408/352 (2^7 11)."""
     for n, hop in ((896, 224), (1344, 336)):
         assert PG.gl_step_route(n, hop) == "product" and PG._step_fft_plan(n, hop) is None
-        assert SS.session_route(n, "polish") == "product"
+        assert SS.session_route(n, "polish") == "smooth"
         assert PK.synth_route(n, hop) == "smooth"
     assert PG.gl_max_chain(896, 224, 64) == 22 and PG.gl_max_chain(1344, 336, 64) == 14
     assert PG._fullk_plan(1344, 192)[0] == "smooth" and PG._fullk_plan(896, 224)[0] == "smooth"

@@ -156,11 +156,12 @@ def test_session_route_vs_generic_scan(n_fft, hop, la):
 def test_polish_plan_and_route_rule(monkeypatch):
     """The plan takes every power of two from 64 to 4096 at the sessions'
     grids (lookahead 0 and 4), with the grid in shared memory at the main
-    shape, and the even 5-smooth n_fft on the smooth route (1200/300,
-    768/192, 1000/200); n_fft with another prime (1344/336, 896/224) and a
-    grid the plan refuses take ``iters`` two-launch projections, on the CPU
-    their plain version; the gate grows the plan; nothing is counted on the
-    CPU."""
+    shape, and the even 7-smooth n_fft on the smooth route (1200/300,
+    768/192, 1000/200, 1344/336, 896/224); n_fft with another prime
+    (1408/352) and a grid the plan refuses take ``iters`` two-launch
+    projections, on the CPU their plain version, equal to the polish's bit
+    for bit on the FFT route; the gate grows the plan; nothing is counted on
+    the CPU."""
     for n in (64, 128, 256, 512, 1024, 2048, 4096):
         hop = n // 4
         for la in (0, 4):
@@ -172,19 +173,19 @@ def test_polish_plan_and_route_rule(monkeypatch):
             assert PK._polish_smem_bytes(tp, hop, n, teams, resident) <= PK.MAX_SMEM
     assert PK._polish_plan(1024, 256, 22) == (4, True) and PK._polish_plan(1024, 256, 26) == (4, True)
     assert PK._polish_plan(4096, 1024, 10) == (1, False)           # the grid stays in device memory
-    for n, hop in ((1200, 300), (768, 192), (1000, 200)):
+    for n, hop in ((1200, 300), (768, 192), (1000, 200), (1344, 336), (896, 224)):
         assert not fft_covers(n) and PK._polish_plan(n, hop, 22) is not None
-    for n, hop in ((1344, 336), (896, 224)):
+    for n, hop in ((1408, 352),):
         assert not fft_covers(n) and PK._polish_plan(n, hop, 22) is None
     assert PK._polish_plan(1000, 250, 22) is None                  # hop % 4 != 0
     assert PK._polish_plan(1024, 2, 22) is None and PK._polish_plan(1024, 256, 2) is None
     # the gate: the polish takes more than 40 polished frames where it holds the grid
     # (1200/300 too), the two-launch route's limits stay where it does not
-    assert PK.kernel_covers("project", 512, 128, 41, 3) and PK.kernel_covers("project", 1344, 336, 40, 3)
+    assert PK.kernel_covers("project", 512, 128, 41, 3) and PK.kernel_covers("project", 1408, 352, 40, 3)
     assert PK.kernel_covers("project", 1200, 300, 41, 3) and PK.kernel_covers("project", 1200, 300, 48, 3)
-    assert not PK.kernel_covers("project", 1344, 336, 41, 3)
+    assert not PK.kernel_covers("project", 1408, 352, 41, 3)
     with pytest.raises(NotImplementedError, match="K10-K17"):
-        PK._require("project", 1344, 336, 48, 3)
+        PK._require("project", 1408, 352, 48, 3)
     # the route rule on the CPU
     n_fft, hop, la = 512, 128, 0
     _, prt = rt_pair(n_fft, hop, la)
@@ -200,7 +201,7 @@ def test_polish_plan_and_route_rule(monkeypatch):
     ref = p.clone()
     for _ in range(ITERS):
         ref = PK.gl_project_reference(m, ref, *args)
-    assert torch.equal(two, ref) and not torch.equal(two, fft)
+    assert torch.equal(two, ref) and torch.equal(two, fft)
     assert torch.equal(PK.gl_polish(m, p.clone(), None, prt.inv_window, prt.window, None, None, *args[2:], 0), p)
     assert not any(PK.launches.values()) and not any(PK.routes.values())
     assert "gl_polish" in PK.launches and {"gl_polish:fft", "gl_polish:smooth"} <= set(PK.routes)

@@ -183,8 +183,8 @@ def test_smooth_polish_session_vs_generic_scan():
 
 # -------------------------------------------------------- rules and plans
 def test_route_rules_and_plans():
-    """Smooth at 768, 1200 and 1000; at 896 and 1344 K on its radix-7
-    instance and O on the two-launch projection; K's product at 1408; the
+    """Smooth at 768, 1200 and 1000; at 896 and 1344 K and O's polish on
+    their radix-7 instances; K's product at 1408; the
     FFT route at 1024.  Every plan of either kernel at an even 5-smooth n_fft
     fits shared memory, and K's route is smooth at every such shape its gate
     takes."""
@@ -195,7 +195,7 @@ def test_route_rules_and_plans():
     assert PK.synth_route(1408, 352) == "product" and PK._synth_fft_plan(1408, 352) is None
     for n, hop in ((896, 224), (1344, 336)):
         assert PK.synth_route(n, hop) == "smooth" and PK._synth_fft_plan(n, hop) is not None
-        assert SS._polish_plan(n, hop, 3 + T_C + n // hop - 1) is None
+        assert SS._polish_plan(n, hop, 3 + T_C + n // hop - 1) is not None
         assert SS.kernel_covers("project", n, hop, T_C, 3)
     assert PK.synth_route(1024, 256) == "fft" and SS._polish_plan(1024, 256, 22) == (4, True)
     # the polish holds 1200/300's 14-frame grid with two FFTs side by side

@@ -36,6 +36,7 @@ from acids_transforms_tpu_torch.ops.cuda.frames_fft import (
     TWO_BLOCKS_SMEM,
     fft_covers,
     frames_irfft_reference,
+    frames_rfft_reference,
     irfft_window,
 )
 from test_torch_common import make_audio, rel, t2n
@@ -130,12 +131,13 @@ def test_projection_synthesis_vs_jax_and_oracle(n_fft, hop):
                     spec=np.float64(mag) * np.exp(1j * np.float64(ph)))
     assert rel(t2n(y), y_o) <= 1e-5
     # the projection's plain version synthesizes so: its result against the
-    # same projection built from this synthesis
+    # same projection built from this synthesis (the analysis on the FFT
+    # route's schedule, frames_rfft_reference with the pairs from ctx)
     ctx, lo, hi = 3, 3 + 8 - (ov - 1), 3 + 8
     got = PK.gl_project_reference(m_t, p_t, inv_w, pc[1].window, n_fft, hop, ctx, lo, hi)
     fr = y.unfold(-1, n_fft, hop)[:, ctx:Tp - (ov - 1)]
-    WC, WS = PK._ana_basis(pc[1].window, n_fft)
-    new = torch.atan2(torch.matmul(fr, WS), torch.matmul(fr, WC))
+    re, im = frames_rfft_reference(fr, pc[1].window)
+    new = torch.atan2(im, re)
     rows = torch.arange(ctx, Tp - (ov - 1))
     upd = ((rows < lo) | (rows >= hi))[None, :, None]
     assert torch.equal(got[:, ctx:Tp - (ov - 1)], torch.where(upd, new, p_t[:, ctx:Tp - (ov - 1)]))

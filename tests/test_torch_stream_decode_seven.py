@@ -85,12 +85,14 @@ def session(n_fft, hop, seed):
 
 
 def test_route_rule_at_every_seven_shape():
-    """The decodes smooth at all 199 shapes (by n_fft alone), the polish on
-    its two-launch route there, every shape the decode gate took on the
-    product route still taken, 1408/352 on the products."""
+    """The decodes smooth at all 199 shapes (by n_fft alone), the polish and
+    O's two-launch analysis too (the polish where its block holds the grid),
+    every shape the decode gate took on the product route still taken,
+    1408/352 on the products."""
     n_shapes = 0
     for n in sevens():
-        assert PK.session_route(n, "decode") == "smooth" and PK.session_route(n, "polish") == "product"
+        assert PK.session_route(n, "decode") == "smooth" and PK.session_route(n, "polish") == "smooth"
+        assert PK.session_route(n, "project") == "smooth"
         for ov in range(2, 9):
             if n % ov or (n // ov) % 4:
                 continue
@@ -99,7 +101,9 @@ def test_route_rule_at_every_seven_shape():
             assert PK.session_route(n, "decode", hop) == "smooth" and PK.kernel_covers("decode", n, hop)
             if PK._pick_rows("decode", n, hop) is not None:       # the product's gate took it
                 assert PK.kernel_covers("decode", n, hop)
-            assert PK._polish_plan(n, hop, 3 + 16 + ov - 1) is None
+            tp = 3 + 16 + ov - 1
+            fits = PK._polish_smem_bytes(tp, hop, n, 1, False) <= PK.MAX_SMEM
+            assert (PK._polish_plan(n, hop, tp) is not None) == fits
     assert n_shapes == 199
     # 1408 = 2^7 11: the product route for every kind, the plan its height
     assert all(PK.session_route(1408, k, 352) == "product" for k in PK.SESSION_ROUTE_KINDS)
@@ -214,7 +218,8 @@ def test_p_and_s_at_other_overlaps_vs_oracle(n_fft, hop):
 
 
 def test_projection_synthesis_vs_oracle():
-    """O's two-launch projection at 1344/336 (the polish keeps 5-smooth): its
+    """O's projection at 1344/336 (the polish's radix-7 instance, and the
+    two-launch projection's where the polish cannot hold the grid): its
     synthesis (gain = overlap) of a grid with unwrapped phases and its
     overlap - 1 zero frames, the radix-7 schedule, against the float64
     oracle at 1e-5; the whole projection (``gl_project_reference``) against

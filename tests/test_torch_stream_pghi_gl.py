@@ -229,13 +229,14 @@ def test_dispatch_of_the_pghi_gl_sessions():
         assert PS.plan_roundtrip(c, shape, CHUNK, "pghi_gl", device="cuda") == ("pghi_gl" if ok else "generic")
         assert PS.plan_invert(c, yshape, T_C, "pghi_gl", device="cuda") == ("pghi_gl" if ok else "generic")
     # the kernels' own limits: the polish's grid in one block at a power of
-    # two or an even 5-smooth n_fft (more than 40 polished frames too), at
-    # most 40 polished frames on the two-launch route (n_fft 1344 = 2^6 3 7)
+    # two or an even 7-smooth n_fft (more than 40 polished frames too), at
+    # most 40 polished frames on the two-launch route's product analysis
+    # (n_fft 1408 = 2^7 11)
     assert PK.kernel_covers("project", N_FFT, HOP, T_C + 2) and PK.kernel_covers("project", N_FFT, HOP, 41)
     assert PK.kernel_covers("project", 1200, 300, 41)
-    assert PK.kernel_covers("project", 1344, 336, 40) and not PK.kernel_covers("project", 1344, 336, 41)
+    assert PK.kernel_covers("project", 1408, 352, 40) and not PK.kernel_covers("project", 1408, 352, 41)
     with pytest.raises(NotImplementedError, match="K10-K17"):
-        PK._require("project", 1344, 336, 48)
+        PK._require("project", 1408, 352, 48)
     PK.reset_launches()
     x = torch.as_tensor(make_audio(4, batch=2, n=2 * CHUNK)[:, 0])
     y = PS.scan_roundtrip(pc, x, CHUNK, "pghi_gl", backend="fused")
