@@ -16,15 +16,16 @@
 //                                      <- _stats_kernel (full-K)
 //   repr_forward_kernel<.., kFrontFactored> <- _repr_kernel_factored (via _repr_call /
 //                                     fused_spectral_repr), epilogue _repr_channels; A's
-//                                     rule without the sevens: the kFrontFft instance at a
-//                                     power of two, the kFrontSmooth one at an even 5-smooth
-//                                     n_fft, under the taps' own window)
-//   repr_forward_kernel<.., kFrontFft / kFrontSmooth / kFrontProduct>  <- _repr_kernel
-//                                     (full-K)
+//                                     rule: the kFrontFft instance at a power of two, the
+//                                     kFrontSmooth one at an even 5-smooth n_fft, the
+//                                     kFrontSmooth7 one at an even 7-smooth n_fft with a
+//                                     factor 7, under the taps' own window)
+//   repr_forward_kernel<.., kFrontFft / kFrontSmooth / kFrontSmooth7 / kFrontProduct>
+//                                     <- _repr_kernel (full-K)
 //   repr_stats_kernel<.., kFrontFactored>   <- _repr_stats_kernel_factored (via
 //                                     _repr_stats_call / fused_repr_stats; the same rule)
-//   repr_stats_kernel<.., kFrontFft / kFrontSmooth / kFrontProduct>    <- _repr_stats_kernel
-//                                     (full-K)
+//   repr_stats_kernel<.., kFrontFft / kFrontSmooth / kFrontSmooth7 / kFrontProduct>
+//                                     <- _repr_stats_kernel (full-K)
 //   stats_reduce_kernel     <- the accumulation the TPU kernel carried across its
 //                              sequential grid (_stats_update)
 //   melspec_stage_kernel<kStage> <- the stage-prefix kernel of
@@ -43,10 +44,11 @@
 // 1536, 1920, ...) E, F, G and H (and so A, B and G and H with taps) take the
 // smooth route, kFrontSmooth: the same with frames_rfft<true>, the
 // mixed-radix stages.  Where n_fft is even and 2^a 3^b 5^c 7^d with a factor
-// 7 (fft_covers_smooth7: 896, 1344, 1568, ...) E and F (so A and B) take the
-// smooth route's radix-7 instance, kFrontSmooth7 (frames_rfft<true, true>);
-// G and H have none and keep the product route there, so no instance of
-// theirs compiles radix-7 code.  Otherwise the product route,
+// 7 (fft_covers_smooth7: 896, 1344, 1568, ...) E, F, G and H (so A, B and G
+// and H with taps) take the smooth route's radix-7 instance, kFrontSmooth7
+// (frames_rfft<true, true>), wherever the wrapper finds a block that fits
+// (G with the IF and a mel bank at 4032/2016 keeps the product route).
+// Otherwise the product route,
 // kFrontProduct: a window-folded basis of n_fft x F (cos |
 // -sin), all F bins in one fp32 product; the contraction is n_fft long
 // instead of hop, so it does `overlap` times the multiply-adds of the
@@ -96,8 +98,8 @@
 // contrasted magnitude (what Magnitude.fit fits on).
 //
 // The representation kernels' FFT and smooth routes (repr_forward_fft,
-// repr_stats_fft; kSmooth runs frames_rfft<true>, the mixed-radix stages, and
-// changes nothing else) rearrange that epilogue around frames_rfft, which
+// repr_stats_fft; kSmooth runs frames_rfft<true>, the mixed-radix stages,
+// kSeven their radix-7 stages too, and neither changes anything else) rearrange that epilogue around frames_rfft, which
 // hands over every bin of a frame pair instead of one column tile of all
 // frames; what it computes is unchanged.  Each bin is formed in the emit (the nyquist pin, the angle's
 // rules); without a mel bank channel 1 goes straight to device memory, with
@@ -110,8 +112,8 @@
 // its tile: the halo frame t0 - 1 then goes through the FFT with its partner
 // t0 - 2 as in every other block and in the plain version (frames_rfft_
 // reference over the whole clip), and rounds alike.  The rows carry two
-// leading zero chunks for it.  The smooth route's frames_rfft<true> pairs the
-// frames alike, so the same rule holds there.  Every product and sum of the
+// leading zero chunks for it.  The smooth route's frames_rfft<true, .> pairs
+// the frames alike, whatever its radices, so the same rule holds there.  Every product and sum of the
 // magnitude is rounded on its own (__fmul_rn / __fadd_rn), as the plain
 // version has it.
 //
@@ -141,7 +143,7 @@ constexpr int kFrontFactored = 0;  // chunk product, twiddle combine, taps conv 
 constexpr int kFrontProduct = 1;   // window-folded n_fft x F product (E, F where no FFT covers)
 constexpr int kFrontFft = 2;       // frames_rfft (E, F at a power of two n_fft, 64 .. 4096)
 constexpr int kFrontSmooth = 3;    // frames_rfft<true> (E, F at an even 5-smooth n_fft, no power of two)
-constexpr int kFrontSmooth7 = 4;   // frames_rfft<true, true> (E, F at an even 7-smooth n_fft with a factor 7)
+constexpr int kFrontSmooth7 = 4;   // frames_rfft<true, true> (E, F, G, H at an even 7-smooth n_fft with a factor 7)
 
 // the front ends that run frames_rfft
 __host__ __device__ constexpr bool front_is_fft(int front) {
@@ -623,26 +625,27 @@ __device__ void emit_mel_rows(const float* c1, long long b, int t_base, int t_va
 // zero chunks), then frames_rfft over the halo frames and the tile's first
 // t_valid frames, emit(t, k, re, im) with the tile row t (-2 and -1: the
 // IF's halo) and the nyquist bin's imaginary part pinned to 0; the FFT's
-// area starts at fft_area.  Ends with a barrier.
-template <bool kInt16, bool kSmooth, typename Emit>
+// area starts at fft_area.  kSmooth: the mixed-radix stages, kSeven: their
+// radix-7 stage too.  Ends with a barrier.
+template <bool kInt16, bool kSmooth, bool kSeven, typename Emit>
 __device__ void repr_fft_front(const ReprArgs& a, long long b, int t_base, int t_valid, float* xs,
                                float* fft_area, Emit emit) {
     const int hf = repr_fft_halo(a.second);
     const int n = a.overlap * a.hop;
     const int n_frames = hf + t_valid;
-    const FftSmem fs = carve_fft<kSmooth>(fft_area, n);
-    fft_stage<kSmooth>(a.fft.win, a.fft.tw, fs, n);  // load_rows' barrier covers it
+    const FftSmem fs = carve_fft<kSmooth, kSeven>(fft_area, n);
+    fft_stage<kSmooth, kSeven>(a.fft.win, a.fft.tw, fs, n);  // load_rows' barrier covers it
     load_rows<kInt16>(a.x_rows, (size_t)b * a.n_rows_total + (size_t)t_base,
                       n_frames + a.overlap - 1, a.hop, xs);
     const int F = a.F;
-    frames_rfft<kSmooth>(xs, n_frames, a.hop, n, fs, a.fft.teams, [&](int r, int k, float re, float im) {
+    frames_rfft<kSmooth, kSeven>(xs, n_frames, a.hop, n, fs, a.fft.teams, [&](int r, int k, float re, float im) {
         emit(r - hf, k, re, k == F - 1 ? 0.0f : im);
     });
 }
 
-// Kernel G on the FFT route, or with kSmooth the smooth one (see the notes
-// at the top).
-template <bool kInt16, bool kSmooth>
+// Kernel G on the FFT route, or with kSmooth the smooth one, with kSeven its
+// radix-7 instance (see the notes at the top).
+template <bool kInt16, bool kSmooth, bool kSeven>
 __device__ void repr_forward_fft(const ReprArgs& a, long long b, int tile, float* smem) {
     const int F = a.F, T = a.T, second = a.second;
     const bool mel = a.mel_bank != nullptr && second != kSecondImag;
@@ -655,7 +658,7 @@ __device__ void repr_forward_fft(const ReprArgs& a, long long b, int tile, float
     float* ph_s = c1_s + (size_t)c1r * F;  // the IF: row t + 1 holds tile row t's angles
     const float off1 = a.aff[0], s1 = a.aff[1], off2 = a.aff[2], s2 = a.aff[3];
     const size_t row0 = (size_t)b * T + t_base;
-    repr_fft_front<kInt16, kSmooth>(a, b, t_base, t_valid, xs, ph_s + (size_t)c2r * F,
+    repr_fft_front<kInt16, kSmooth, kSeven>(a, b, t_base, t_valid, xs, ph_s + (size_t)c2r * F,
                            [&](int t, int k, float re, float im) {
         if (second == kSecondImag) {
             a.out1[(row0 + t) * F + k] = (re - off1) / s1;
@@ -689,10 +692,11 @@ __device__ void repr_forward_fft(const ReprArgs& a, long long b, int tile, float
     }
 }
 
-// Kernel H on the FFT (or, kSmooth, the smooth) route: both channels of the
-// tile in shared memory, then each column folded over the frames in frame
-// order (as the product route folds), into the block's partials.
-template <bool kInt16, bool kSmooth>
+// Kernel H on the FFT (or, kSmooth, the smooth; kSeven, its radix-7
+// instance) route: both channels of the tile in shared memory, then each
+// column folded over the frames in frame order (as the product route folds),
+// into the block's partials.
+template <bool kInt16, bool kSmooth, bool kSeven>
 __device__ void repr_stats_fft(const ReprArgs& a, long long blk, long long b, int tile, float* smem) {
     const int F = a.F, T = a.T, second = a.second;
     int c1r, c2r;
@@ -703,7 +707,7 @@ __device__ void repr_stats_fft(const ReprArgs& a, long long blk, long long b, in
     float* xs = smem;
     float* c1_s = xs + (size_t)(a.tile_t + repr_fft_halo(second) + a.overlap - 1) * a.hop;
     float* c2_s = c1_s + (size_t)c1r * F;  // the IF: row t + 1 holds tile row t's angle
-    repr_fft_front<kInt16, kSmooth>(a, b, t_base, t_valid, xs, c2_s + (size_t)c2r * F,
+    repr_fft_front<kInt16, kSmooth, kSeven>(a, b, t_base, t_valid, xs, c2_s + (size_t)c2r * F,
                            [&](int t, int k, float re, float im) {
         if (second == kSecondImag) {
             c1_s[t * F + k] = re;
@@ -744,8 +748,8 @@ __device__ void repr_stats_fft(const ReprArgs& a, long long blk, long long b, in
     }
 }
 
-// On the FFT and smooth routes at most 128 registers a thread, as
-// melspec_forward_kernel's.
+// On the FFT and smooth routes (the radix-7 instance too) at most 128
+// registers a thread, as melspec_forward_kernel's.
 template <bool kInt16, int kFront>
 __global__ void __launch_bounds__(kThreads, front_is_fft(kFront) ? 2 : 1)
 repr_forward_kernel(ReprArgs a) {
@@ -753,7 +757,8 @@ repr_forward_kernel(ReprArgs a) {
     if constexpr (front_is_fft(kFront)) {
         const long long blk = blockIdx.x;
         const long long b = blk / a.n_tiles;
-        repr_forward_fft<kInt16, kFront == kFrontSmooth>(a, b, (int)(blk - b * a.n_tiles), smem);
+        repr_forward_fft<kInt16, front_is_smooth(kFront), kFront == kFrontSmooth7>(
+            a, b, (int)(blk - b * a.n_tiles), smem);
     } else {
         const int halo = a.second == kSecondIF ? 1 : 0;
         const int F = a.F, T = a.T;
@@ -832,7 +837,8 @@ repr_stats_kernel(ReprArgs a) {
     if constexpr (front_is_fft(kFront)) {
         const long long blk = blockIdx.x;
         const long long b = blk / a.n_tiles;
-        repr_stats_fft<kInt16, kFront == kFrontSmooth>(a, blk, b, (int)(blk - b * a.n_tiles), smem);
+        repr_stats_fft<kInt16, front_is_smooth(kFront), kFront == kFrontSmooth7>(
+            a, blk, b, (int)(blk - b * a.n_tiles), smem);
     } else {
         const int halo = a.second == kSecondIF ? 1 : 0;
         const int F = a.F, T = a.T;
@@ -1179,7 +1185,7 @@ long long att_repr_smem_bytes(int tile_t, int hop, int overlap, int F, int stats
 }
 
 // The same for the FFT route (n_fft a power of two) or the smooth route
-// (n_fft even, 5-smooth, no power of two) with `teams` FFTs side by side,
+// (n_fft even, 7-smooth, no power of two) with `teams` FFTs side by side,
 // channel-2 selector `second` and a mel bank or not.
 long long att_repr_fft_smem_bytes(int tile_t, int hop, int overlap, int F, int teams, int stats,
                                   int second, int mel) {
@@ -1196,8 +1202,9 @@ long long att_repr_fft_smem_bytes(int tile_t, int hop, int overlap, int F, int t
 // overlap, tile_t one of 32, 16, 8, hop a multiple of 32.  fft_teams > 0: the
 // FFT route (n_fft = overlap hop a power of two from 64 to 4096, fft_teams <=
 // 4096 / n_fft FFTs side by side) or the smooth route (n_fft even, 2^a 3^b
-// 5^c, 64 to 4096 and no power of two, fft_teams <= fft_smooth_max_teams(n_fft)),
-// F = n_fft / 2 + 1; window (n_fft,), fft_tw (2, n_fft) = (cos, -sin)(2 pi j
+// 5^c 7^d, 64 to 4096 and no power of two, fft_teams <=
+// fft_smooth_max_teams(n_fft); the radix-7 instance where n_fft has a factor
+// 7), F = n_fft / 2 + 1; window (n_fft,), fft_tw (2, n_fft) = (cos, -sin)(2 pi j
 // / n_fft); bcos / bsin / twr / twi not read; x_rows has 2 leading zero chunks with the IF (second = 1), none
 // otherwise, n_rows_total >= n_tiles * tile_t + that + overlap - 1; tile_t
 // one of 32, 16, 8, 4, 2.  second: 0 phase, 1 IF, 2 imag.  G: aff = [off1,
@@ -1219,7 +1226,7 @@ int att_repr(int stats_mode, const void* x_rows, int x_int16, long long B, int n
     if (P >= kMaxTaps || overlap < 1 || second < 0 || second > 2 ||
         (fft && (!fullk || F != n_fft / 2 + 1 ||
                  !((fft_covers(n_fft) && fft_teams <= fft_max_teams(n_fft)) ||
-                   (fft_covers_smooth(n_fft) && fft_teams <= fft_smooth_max_teams(n_fft))) ||
+                   (fft_covers_smooth7(n_fft) && fft_teams <= fft_smooth_max_teams(n_fft))) ||
                  (tile_t != 32 && tile_t != 16 && tile_t != 8 && tile_t != 4 && tile_t != 2))) ||
         (!fft && (tile_t + overlap > kMaxRows || (tile_t != 32 && tile_t != 16 && tile_t != 8) ||
                   hop % kKC != 0))) {
@@ -1250,6 +1257,7 @@ int att_repr(int stats_mode, const void* x_rows, int x_int16, long long B, int n
 #define ATT_LAUNCH_REPR_FR(KERNEL, I16)                                                    \
     do {                                                                                   \
         if (fft && fft_covers(n_fft)) ATT_LAUNCH_REPR(KERNEL, I16, kFrontFft);             \
+        else if (fft && n_fft % 7 == 0) ATT_LAUNCH_REPR(KERNEL, I16, kFrontSmooth7);       \
         else if (fft) ATT_LAUNCH_REPR(KERNEL, I16, kFrontSmooth);                          \
         else if (fullk) ATT_LAUNCH_REPR(KERNEL, I16, kFrontProduct);                       \
         else ATT_LAUNCH_REPR(KERNEL, I16, kFrontFactored);                                 \

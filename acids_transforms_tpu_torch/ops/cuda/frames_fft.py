@@ -98,9 +98,9 @@ def fft_covers(n_fft: int) -> bool:
     I, K's synthesis and O's polish and analysis take the smooth route where
     :func:`fft_covers_smooth` does (R, N's encode, L, M, the decodes P, S
     and O's projection synthesis, O's polish and analysis, E and F with A
-    and B, J and K's synthesis where :func:`fft_covers_smooth7` does), and
-    the products (A, B, G and H the factored front end, O's polish the
-    two-launch projection, its analysis a product) at every other
+    and B, G and H, J and K's synthesis where :func:`fft_covers_smooth7`
+    does), and the products (A, B, G and H the factored front end, O's
+    polish the two-launch projection, its analysis a product) at every other
     ``n_fft``."""
     n = int(n_fft)
     return FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0
@@ -113,8 +113,8 @@ def fft_covers_smooth(n_fft: int) -> bool:
     streaming decodes (P, S, O's projection synthesis), the full-K melspec
     forward and fit E and F (so A and B, under the taps' own window), the
     representation forward and fit G and H, the Griffin-Lim steps J, C, D and
-    I, K's synthesis and O's polish (each where its block fits) take it; O's
-    analysis runs its product route there."""
+    I, K's synthesis and O's polish and analysis (each where its block fits)
+    take it."""
     return _smooth(n_fft, (2, 3, 5))
 
 
@@ -124,12 +124,14 @@ def fft_covers_smooth7(n_fft: int) -> bool:
     of two; every size :func:`fft_covers_smooth` takes, and those with a
     factor 7 (896, 1344, 1680, 1764, ...).  R, the magnitude encode, L, M
     (L and M where their block fits), the streaming decodes P, S and O's
-    projection synthesis, the full-K melspec forward and fit E and F (so A
-    and B under the taps' own window; ``spectral.melspec_route``'s
-    ``"melspec"`` family), the full-K Griffin-Lim step J
-    (``glstep._fullk_plan``) and K's synthesis (``pghi_kernel.synth_route``)
-    take it, J and K's synthesis where their block fits; every other kernel
-    (G, H, C, D, I, O's polish) keeps :func:`fft_covers_smooth`."""
+    projection synthesis, O's polish and two-launch analysis, the full-K
+    melspec forward and fit E and F (so A and B under the taps' own window)
+    and the representation forward and fit G and H
+    (``spectral.melspec_route``; G and H where their block fits), the
+    full-K Griffin-Lim step J (``glstep._fullk_plan``) and K's synthesis
+    (``pghi_kernel.synth_route``) take it, J and K's synthesis where their
+    block fits; the Griffin-Lim steps C, D and I keep
+    :func:`fft_covers_smooth`."""
     return _smooth(n_fft, (2, 3, 5, 7))
 
 

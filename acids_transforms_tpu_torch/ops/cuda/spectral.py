@@ -16,8 +16,8 @@ chunk-factored one runs; with ``taps=None`` and a ``window`` (any window, the
 DGT's gaussian for one) the full-K one, where frame ``t`` is the slice ``row[t
 hop : t hop + n_fft]`` of the same padded rows.  The full-K front end of
 ``fused_melspec`` and ``fused_melspec_stats`` (kernels E and F) has three
-routes, picked by ``n_fft`` alone (:func:`melspec_route`, family
-``"melspec"``): where it is a power of two from 64 to 4096
+routes, picked by ``n_fft`` alone (:func:`melspec_route`): where it is a
+power of two from 64 to 4096
 (``frames_fft.fft_covers``) the FFT route (``csrc/fft_smem.cuh:frames_rfft``,
 the window and a twiddle table, no basis; plain version
 ``frames_fft.frames_rfft_reference``); where it is even and ``2^a 3^b 5^c
@@ -38,17 +38,18 @@ end (:func:`_kernel_plan`).  All need ``hop | n_fft``.
 (Polar, PolarIF, Cartesian): one DFT feeds channel 1 (``|X|`` through mel,
 contrast and affine, or ``Re``) and channel 2 (the angle, the frame-local
 instantaneous frequency, or ``Im``) with an affine each.  Their full-K front
-end (kernels G and H full-K) takes the same three routes by the rule of its
-own family (:func:`melspec_route`, ``"repr"``: the smooth route where
-``fft_covers_smooth``, without a radix-7 instance, so 896 and 1344 keep the
-product route); on the FFT and the smooth route a block with the IF
+end (kernels G and H full-K) takes the same three routes by the same rule
+(:func:`melspec_route`; the radix-7 instance where ``n_fft`` has a factor 7)
+wherever a block fits the smooth route: G with the IF and a mel bank at
+4032/2016 keeps the product route, whose tile fits there
+(:func:`_repr_route`).  On the FFT and the smooth route a block with the IF
 computes two frames before its tile (the halo frame and its FFT partner), so
 that every frame goes through the FFT with the partner it has in the plain
 version's whole-clip schedule.  With ``taps`` the forward (kernel G) and the
 statistics (kernel H) take G and H full-K's FFT or smooth route under the
-taps' own window where ``fft_covers(n_fft)`` or ``fft_covers_smooth(n_fft)``,
-the factored front end elsewhere (:func:`_repr_plan`); their plain versions
-follow the same rule.  ``routes`` counts the launches by route.
+taps' own window by that rule, the factored front end elsewhere
+(:func:`_repr_plan`); their plain versions follow the same rule.
+``routes`` counts the launches by route.
 
 ``melspec_forward_stage`` runs the factored forward cut after one of its
 stages (``STAGES``) on prepared rows: the kernel of the floor sweep
@@ -86,7 +87,6 @@ from .frames_fft import (
     TWO_BLOCKS_SMEM,
     fft_area_floats,
     fft_covers,
-    fft_covers_smooth,
     fft_covers_smooth7,
     fft_max_teams,
     fft_smooth_max_teams,
@@ -102,7 +102,6 @@ __all__ = [
     "fused_melspec_stats_reference",
     "fused_melspec_available",
     "melspec_route",
-    "MELSPEC_ROUTE_FAMILIES",
     "fused_melspec_op",
     "fused_spectral_repr",
     "fused_spectral_repr_reference",
@@ -133,8 +132,8 @@ launches: Dict[str, int] = {
 #: ``"<kernel>:product"`` / ``"<kernel>:factored"`` (each also counts in
 #: ``launches``): the full-K kernels, and A, B, G and H with taps (the FFT
 #: route where ``fft_covers(n_fft)``, the smooth route where
-#: :func:`melspec_route` says so, its radix-7 instance counted there too,
-#: the factored front end elsewhere)
+#: :func:`melspec_route` says so and a block fits, its radix-7 instance
+#: counted there too, the factored front end elsewhere)
 routes: Dict[str, int] = {
     "fused_melspec_fullk:fft": 0, "fused_melspec_fullk:smooth": 0, "fused_melspec_fullk:product": 0,
     "fused_melspec_stats_fullk:fft": 0, "fused_melspec_stats_fullk:smooth": 0,
@@ -234,29 +233,18 @@ def _pick_smooth_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
     return best
 
 
-#: the kernel families :func:`melspec_route` reads: ``"melspec"`` (E, F, and
-#: A and B under the taps' own window) and ``"repr"`` (G and H, full-K and
-#: with taps)
-MELSPEC_ROUTE_FAMILIES = ("melspec", "repr")
-
-
-def melspec_route(n_fft: int, family: str) -> str:
-    """The route of the kernel family ``family`` at ``n_fft``: ``"fft"``
-    where ``fft_covers`` (a power of two from 64 to 4096), ``"smooth"`` where
-    the family's mixed-radix instances take it, else ``"other"`` (E and F's
-    product, A and B's factored front end; G's and H's alike).  The
-    ``"melspec"`` family (E, F, A, B) has a radix-7 instance, so its smooth
-    route is ``fft_covers_smooth7`` (even, ``2^a 3^b 5^c 7^d``, 64 to 4096,
-    no power of two: 896, 1344, 1568, ... too); the ``"repr"`` family (G, H)
-    has none and keeps ``fft_covers_smooth`` (even, ``2^a 3^b 5^c``).  Every
-    caller names its family: the C++ entry of E and F takes the sevens, G's
-    and H's does not."""
-    if family not in MELSPEC_ROUTE_FAMILIES:
-        raise ValueError("melspec_route: family %r is none of %s" % (family, MELSPEC_ROUTE_FAMILIES))
+def melspec_route(n_fft: int) -> str:
+    """The route of E, F, G and H (and of A, B, G and H under the taps' own
+    window) at ``n_fft``: ``"fft"`` where ``fft_covers`` (a power of two from
+    64 to 4096), ``"smooth"`` where ``fft_covers_smooth7`` (even, ``2^a 3^b
+    5^c 7^d``, 64 to 4096, no power of two: 768, 1920, ..., and on the
+    radix-7 instances 896, 1344, 1568, ...), else ``"other"`` (the full-K
+    product, the cosine-sum factored front end).  Where the smooth route's
+    block does not fit, :func:`_kernel_plan` raises and :func:`_repr_route`
+    keeps G's and H's product or factored front end."""
     if fft_covers(n_fft):
         return "fft"
-    covers = fft_covers_smooth7 if family == "melspec" else fft_covers_smooth
-    return "smooth" if covers(n_fft) else "other"
+    return "smooth" if fft_covers_smooth7(n_fft) else "other"
 
 
 def fused_melspec_available(n_fft: int, hop_length: int, taps) -> bool:
@@ -330,14 +318,16 @@ def _pick_repr_fft_plan(n_fft: int, hop: int, stats: bool, second: str,
 
 def _pick_repr_smooth_plan(n_fft: int, hop: int, stats: bool, second: str,
                            mel: bool) -> Optional[Tuple[int, int]]:
-    """``(tile_t, teams)`` of G or H on the smooth route: among the frame
-    tiles (``FFT_TILES``) and the powers of two of FFTs side by side up to
-    ``fft_smooth_max_teams(n_fft)`` whose block fits shared memory, the most
-    tile frames per round of pair FFTs (the ``tile_t + halo`` frames of a
-    block with the IF) times the blocks an SM holds (its shared memory at a
-    block's bytes, 1 KB reserved each, at most two: the instances' 128
-    registers), as :func:`_pick_smooth_plan` scores them; ties to the wider
-    tile, then to fewer FFTs; or None."""
+    """``(tile_t, teams)`` of G or H on the smooth route, its radix-7
+    instance included: among the frame tiles (``FFT_TILES``) and the powers
+    of two of FFTs side by side up to ``fft_smooth_max_teams(n_fft)`` whose
+    block fits shared memory, the most tile frames per round of pair FFTs
+    (the ``tile_t + halo`` frames of a block with the IF) times the blocks
+    an SM holds (its shared memory at a block's bytes, 1 KB reserved each,
+    at most two: the instances' 128 registers), as :func:`_pick_smooth_plan`
+    scores them; ties to the wider tile, then to fewer FFTs; or None (G with
+    the IF and a mel bank at 4032/2016).  At 896/224: G and H with the IF 8
+    frames of 4 FFTs, G Polar with a bank 16 of 4, H Polar 8 of 4."""
     overlap, n_bins = n_fft // hop, n_fft // 2 + 1
     best, score = None, 0.0
     for tile_t in FFT_TILES:
@@ -431,7 +421,7 @@ def _fullk_spectrum(x, n_fft, hop, center, window, smooth: bool = False):
     frames paired ``(2j, 2j + 1)``, as the kernels' even tiles pair them);
     with ``smooth`` where ``fft_covers_smooth7(n_fft)`` the smooth route's,
     radix-7 stages included where ``n_fft`` has a factor 7 (every kernel's
-    plain version passes it where its family's rule says so, through
+    plain version passes it where its route is smooth, through
     :func:`_spectrum`; without it tests get the product route there);
     otherwise the window lies in the basis."""
     rows, T, _ = _prepare_rows(x, n_fft, hop, center)
@@ -445,12 +435,12 @@ def _fullk_spectrum(x, n_fft, hop, center, window, smooth: bool = False):
     return torch.matmul(frames, WC), torch.matmul(frames, WS)
 
 
-def _spectrum(x, n_fft, hop, center, taps, window, family: str = "melspec"):
-    """(re, im) of the front end and route the kernels of ``family`` take
-    (:func:`melspec_route`): the full-K one on its route without ``taps``;
-    with them, on the FFT or the smooth route, that route's schedule under
-    the taps' own window, else the factored front end."""
-    route = melspec_route(n_fft, family)
+def _spectrum(x, n_fft, hop, center, taps, window, route: Optional[str] = None):
+    """(re, im) of the front end on ``route`` (default :func:`melspec_route`'s,
+    the one E, F, A and B take): the full-K one on its route without
+    ``taps``; with them, on the FFT or the smooth route, that route's
+    schedule under the taps' own window, else the factored front end."""
+    route = melspec_route(n_fft) if route is None else route
     if taps is None:
         return _fullk_spectrum(x, n_fft, hop, center, window, smooth=route == "smooth")
     if route != "other":
@@ -499,7 +489,7 @@ def fused_melspec_reference(
     window: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_melspec` (same arguments), on the
-    route the kernel takes (:func:`melspec_route`, family ``"melspec"``: the
+    route the kernel takes (:func:`melspec_route`: the
     FFT or the smooth route's schedule over the whole clip, radix-7 stages
     included where ``n_fft`` has a factor 7, with ``taps`` under the taps'
     own window; the product or the factored front end elsewhere)."""
@@ -605,15 +595,15 @@ def _stream() -> ctypes.c_void_p:
 def _kernel_plan(n_fft, hop, taps) -> Tuple[int, int]:
     """``(tile_t, teams)`` of the forward (A, E) and the statistics (B, F)
     for this shape, ``teams = 0`` off the FFT and smooth routes, or raise:
-    the kernels never give way.  The route is :func:`melspec_route`'s for
-    the ``"melspec"`` family, with taps (under their own window) or without:
+    the kernels never give way.  The route is :func:`melspec_route`'s, with
+    taps (under their own window) or without:
     the FFT route (:func:`_pick_fft_plan`) where ``fft_covers(n_fft)``, the
     smooth route (:func:`_pick_smooth_plan`; the radix-7 instance where
     ``n_fft`` has a factor 7) where ``fft_covers_smooth7(n_fft)``, the
     factored or the product front end elsewhere.  Where the smooth route
     finds no plan (4032/2016) it raises: the product or factored block does
     not fit there either, and no shape changes route silently."""
-    route = melspec_route(n_fft, "melspec")
+    route = melspec_route(n_fft)
     if route != "other" and fused_melspec_available(n_fft, hop, taps):
         plan = _pick_fft_plan(n_fft, hop) if route == "fft" else _pick_smooth_plan(n_fft, hop)
         if plan is None:
@@ -894,14 +884,17 @@ def _if_rows(ph: torch.Tensor, weighted: bool) -> torch.Tensor:
     return v
 
 
-def _repr_channels(x, n_fft, hop, center, taps, window, second, contrast, mel_bank, weighted):
+def _repr_channels(x, n_fft, hop, center, taps, window, second, contrast, mel_bank, weighted,
+                   stats: bool = False):
     """Pre-affine (channel 1, channel 2) of the representation kernels, on
-    the front end and route the kernel takes (:func:`melspec_route`, family
-    ``"repr"``): the FFT or the smooth route's schedule over the whole clip
+    the front end and route the kernel takes (:func:`_repr_route`, for G or,
+    with ``stats``, H): the FFT or the smooth route's schedule over the
+    whole clip, radix-7 stages included where ``n_fft`` has a factor 7
     (with ``taps`` under the taps' own window), the factored or the product
-    front end elsewhere (896 = 2^7 7 among them: G and H have no radix-7
-    instance)."""
-    re, im = _spectrum(x, n_fft, hop, center, taps, window, "repr")
+    front end elsewhere."""
+    mel = mel_bank is not None and second != "imag"
+    route = _repr_route(n_fft, hop, taps, stats, second, mel)
+    re, im = _spectrum(x, n_fft, hop, center, taps, window, route)
     im = _pin_nyquist(im)
     if second == "imag":
         return re, im
@@ -930,7 +923,7 @@ def fused_spectral_repr_reference(
     window: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`fused_spectral_repr`, on the route the
-    kernel takes (:func:`melspec_route`, family ``"repr"``)."""
+    kernel takes (:func:`_repr_route`)."""
     _check_repr(x, n_fft, hop_length, second, taps, window)
     if second == "imag":
         mel_bank, contrast = None, "none"
@@ -951,15 +944,15 @@ def fused_repr_stats_reference(
     window: Optional[torch.Tensor] = None,
 ) -> dict:
     """Plain PyTorch version of :func:`fused_repr_stats`, on the route the
-    kernel takes (as :func:`fused_spectral_repr_reference`'s: with ``taps``
-    the FFT or the smooth route's schedule under the taps' own window where
-    ``fft_covers(n_fft)`` or ``fft_covers_smooth(n_fft)``)."""
+    kernel takes (:func:`_repr_route` for H: with ``taps`` the FFT or the
+    smooth route's schedule under the taps' own window where
+    :func:`melspec_route` says so, radix-7 stages included)."""
     x = x.reshape((-1, x.shape[-1]))
     _check_repr(x, n_fft, hop_length, second, taps, window)
     if second == "imag":
         contrast = "none"
     c1, c2 = _repr_channels(x, n_fft, hop_length, center, taps, window, second, contrast,
-                            None, weighted)
+                            None, weighted, stats=True)
 
     def chan(v):
         vd = v.double()
@@ -987,16 +980,34 @@ def _repr_kernel_tile(n_fft, hop, taps) -> int:
     return tile_t
 
 
+def _repr_route(n_fft, hop, taps, stats, second, mel) -> str:
+    """The route of G (``stats=False``, ``mel``: with a mel bank) or H at
+    this shape: :func:`melspec_route`'s, except where its smooth route finds
+    no block that fits shared memory (:func:`_pick_repr_smooth_plan`) but
+    the product or factored tile does (:func:`_pick_repr_tile`): there
+    ``"other"``.  Of the 42 even 7-smooth shapes with a factor 7 the gate
+    takes, that is only G with the IF and a mel bank at 4032/2016 (its
+    narrowest smooth block needs 237,316 B), which so keeps the route it
+    had.  The wrappers (:func:`_repr_plan`) and the plain versions
+    (:func:`_repr_channels`) read it alike."""
+    route = melspec_route(n_fft)
+    if (route == "smooth" and fused_melspec_available(n_fft, hop, taps)
+            and _pick_repr_smooth_plan(n_fft, hop, stats, second, mel) is None
+            and _pick_repr_tile(hop, n_fft // hop, n_fft // 2 + 1) is not None):
+        return "other"
+    return route
+
+
 def _repr_plan(n_fft, hop, taps, stats, second, mel) -> Tuple[int, int]:
     """``(tile_t, teams)`` of the representation kernels for this shape,
     ``teams = 0`` off the FFT and smooth routes, or raise: the kernels never
-    give way.  The route is :func:`melspec_route`'s for the ``"repr"``
-    family, for every launch, with taps (under their own window) or without:
-    the FFT route (:func:`_pick_repr_fft_plan`) where ``fft_covers(n_fft)``,
-    the smooth route (:func:`_pick_repr_smooth_plan`) where
-    ``fft_covers_smooth(n_fft)``, the factored or the product front end
-    elsewhere (896, 1344: no radix-7 instance of G or H)."""
-    route = melspec_route(n_fft, "repr")
+    give way.  The route is :func:`_repr_route`'s for every launch, with
+    taps (under their own window) or without: the FFT route
+    (:func:`_pick_repr_fft_plan`) where ``fft_covers(n_fft)``, the smooth
+    route (:func:`_pick_repr_smooth_plan`; the radix-7 instance where
+    ``n_fft`` has a factor 7) where ``fft_covers_smooth7(n_fft)`` and a block
+    fits, the factored or the product front end elsewhere."""
+    route = _repr_route(n_fft, hop, taps, stats, second, mel)
     if route != "other" and fused_melspec_available(n_fft, hop, taps):
         pick = _pick_repr_fft_plan if route == "fft" else _pick_repr_smooth_plan
         plan = pick(n_fft, hop, stats, second, mel)

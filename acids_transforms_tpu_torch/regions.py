@@ -11,15 +11,13 @@ None comes from the JAX package's table, whose values are TPU crossovers.
 A shape region is ``n_fft_min <= n_fft <= n_fft_max`` and the list
 ``routes`` of the kernel routes it admits (:func:`kernel_route`): ``"fft"``
 (the shared-memory FFT, ``n_fft`` a power of two, 64-4096), ``"smooth"`` (the
-mixed-radix FFT at an even ``n_fft`` that is no power of two: 5-smooth for
-every kernel of these regions, A, B, E, F, G and H, and 7-smooth with a
-factor 7 for the magnitude kernels A, B, E and F, whose radix-7 instance G
-and H lack) and ``"product"`` / ``"factored"`` (the full-K and the
-cosine-sum front ends everywhere else).  A route is listed only where every
-point of it the sweep measured won against the eager route: for the
-magnitude patterns 768/192 and 896/224 (2^7 7) measure the smooth route and
-1408/352 (2^7 11) the factored and product routes; for the representations
-768/192 the smooth route and 896/224 the factored and product routes.  A
+mixed-radix FFT at an even 7-smooth ``n_fft`` that is no power of two: every
+kernel of these regions, A, B, E, F, G and H, has it, with a radix-7
+instance where ``n_fft`` has a factor 7) and ``"product"`` / ``"factored"``
+(the full-K and the cosine-sum front ends everywhere else).  A route is
+listed only where every point of it the sweep measured won against the
+eager route: 768/192 and 896/224 (2^7 7) measure the smooth route and
+1408/352 (2^7 11) the factored and product routes of every pattern.  A
 region has no overlap bound: the
 kernels' own gate (2 <= n_fft / hop <= 8) is the whole range, and the kernel
 won at each overlap measured, so the functions take ``hop_length`` for the
@@ -58,12 +56,12 @@ def table() -> dict:
         return json.load(f)
 
 
-def kernel_route(n_fft: int, has_taps: bool, family: str) -> str:
-    """The route a kernel of these regions takes at ``n_fft``: the
-    ``family``'s (``"melspec"``: A, B, E, F; ``"repr"``: G, H)
-    ``ops/cuda/spectral.py:melspec_route`` ``"fft"`` or ``"smooth"``, else
-    ``"factored"`` with cosine-sum taps and ``"product"`` without."""
-    route = melspec_route(n_fft, family)
+def kernel_route(n_fft: int, has_taps: bool) -> str:
+    """The route a kernel of these regions (A, B, E, F, G, H) takes at
+    ``n_fft``: ``ops/cuda/spectral.py:melspec_route``'s ``"fft"`` or
+    ``"smooth"``, else ``"factored"`` with cosine-sum taps and ``"product"``
+    without."""
+    route = melspec_route(n_fft)
     if route != "other":
         return route
     return "factored" if has_taps else "product"
@@ -80,7 +78,7 @@ def melspec_region_ok(n_fft: int, hop_length: int, has_taps: bool) -> bool:
     any other window (the DGT's gaussian)."""
     t = table()["fuse_forward"]
     return _in_shape_region(t["melspec_taps" if has_taps else "melspec_fullk"], n_fft,
-                            kernel_route(n_fft, has_taps, "melspec"))
+                            kernel_route(n_fft, has_taps))
 
 
 def repr_region_ok(n_fft: int, hop_length: int, has_taps: bool, second: str) -> bool:
@@ -88,11 +86,11 @@ def repr_region_ok(n_fft: int, hop_length: int, has_taps: bool, second: str) -> 
     region, Polar and Cartesian share one; each with taps and full-K."""
     r = table()["fuse_forward"]["repr_if" if second == "if" else "repr_phase_imag"]
     return _in_shape_region(r["taps" if has_taps else "fullk"], n_fft,
-                            kernel_route(n_fft, has_taps, "repr"))
+                            kernel_route(n_fft, has_taps))
 
 
 def mfcc_region_ok(n_fft: int, hop_length: int) -> bool:
-    return _in_shape_region(table()["fuse_forward"]["mfcc"], n_fft, kernel_route(n_fft, True, "melspec"))
+    return _in_shape_region(table()["fuse_forward"]["mfcc"], n_fft, kernel_route(n_fft, True))
 
 
 def fit_fullk_max_n_fft() -> int:
@@ -106,7 +104,7 @@ def fit_fullk_region_ok(n_fft: int, two_channel: bool = False) -> bool:
     representations' (H full-K)."""
     t = table()["fuse_fit"]
     routes = t["repr_fullk_routes" if two_channel else "melspec_fullk_routes"]
-    return (kernel_route(n_fft, False, "repr" if two_channel else "melspec") in routes
+    return (kernel_route(n_fft, False) in routes
             and n_fft <= fit_fullk_max_n_fft())
 
 

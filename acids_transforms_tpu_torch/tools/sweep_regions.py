@@ -18,11 +18,9 @@ measurement).  The parts:
   1024, 1408, 2048 and 4096 with overlap 4, at 64 with overlap 2 (the
   kernels take a hop that is a multiple of 32 only) and at 1024 with overlap
   2 and 8.  768 = 2^8 3 measures the smooth route of every pattern's kernels
-  (A, E, G); 896 = 2^7 7 the smooth route's radix-7 instance of the
-  magnitude patterns' kernels (A, E) and the factored and product routes of
-  the representations' (G, which has no radix-7 instance); 1408 = 2^7 11
-  the magnitude patterns' factored and product routes
-  (:func:`route_points`).  The patterns:
+  (A, E, G); 896 = 2^7 7 the smooth route's radix-7 instance of them;
+  1408 = 2^7 11 their factored and product routes (:data:`SEVEN_POINTS`).
+  The patterns:
   ``Mono + STFT(hann) + Magnitude(log1p, mel)`` (melspec_taps), ``Mono +
   DGT + Magnitude(log1p)`` (melspec_fullk), ``Mono + STFT | DGT + PolarIF``
   (repr_if taps / fullk), ``Mono + STFT | DGT + Polar`` (repr_phase_imag
@@ -50,7 +48,7 @@ measurement).  The parts:
 The derived table: a shape region per pattern (the measured power-of-two
 n_fft around 1024 where the kernel wins, and the routes it admits: ``fft``,
 ``smooth`` where the pattern's kernel won at every smooth point of
-:func:`route_points`, ``factored`` / ``product`` where it won at every
+:data:`SEVEN_POINTS`, ``factored`` / ``product`` where it won at every
 other-route point); the full-K fit's largest
 n_fft up to which both fits win at every measured power of two, and per fit
 the routes it admits by the same rule; per session mode the
@@ -95,26 +93,12 @@ POW2 = {64: "64/32", 128: "128/32", 256: "256/64", 512: "512/128", 1024: "1024/2
 KINDS = ["melspec_taps", "melspec_fullk", "repr_if_taps", "repr_if_fullk", "repr_phase_taps",
          "repr_phase_fullk", "mfcc"]
 FIT_KINDS = ["fit_melspec_fullk", "fit_repr_if_fullk"]
-#: the points that measure each route off a power of two for the
-#: representations (G, H): the smooth route at 768 (2^8 3), their factored /
-#: product front end at 896 (2^7 7: no radix-7 instance of G or H)
-SMOOTH_POINTS = {"smooth": ["768/192"], "other": ["896/224"]}
-#: the same for the magnitude patterns (A, B, E, F): the smooth route at 768
-#: and, on its radix-7 instance, at 896; their factored / product front end
-#: at 1408 (2^7 11)
-SEVEN_POINTS = {"smooth": ["768/192", "896/224"], "other": ["1408/352"]}
-#: the patterns whose kernels are A, B, E or F
-MAGNITUDE_KINDS = ("melspec_taps", "melspec_fullk", "mfcc", "fit_melspec_fullk")
-
-
-def route_points(kind: str) -> Dict[str, List[str]]:
-    """Per route a pattern's kernel takes off a power of two (``smooth``,
-    and ``other``: its factored or product front end), the shapes that
-    measure it: :data:`SEVEN_POINTS` for the magnitude patterns
-    (:data:`MAGNITUDE_KINDS`: A, B, E and F take the smooth route at 896 on
-    their radix-7 instance), :data:`SMOOTH_POINTS` for the
-    representations."""
-    return SEVEN_POINTS if kind in MAGNITUDE_KINDS else SMOOTH_POINTS
+#: per route a pattern's kernel takes off a power of two (``smooth``, and
+#: ``other``: its factored or product front end), the shapes that measure
+#: it: every pattern's kernels (A, B, E, F, G, H) take the smooth route at
+#: 768 (2^8 3) and, on their radix-7 instance, at 896 (2^7 7); their
+#: factored / product front end at 1408 (2^7 11)
+SEVEN_POINTS: Dict[str, List[str]] = {"smooth": ["768/192", "896/224"], "other": ["1408/352"]}
 
 
 def other_route(kind: str) -> str:
@@ -126,7 +110,7 @@ def admitted_routes(kind: str, wins: Dict[str, bool]) -> List[str]:
     """The routes a region of ``kind`` admits: ``fft``, and each other route
     whose every measured point won (``wins``: shape -> the kernel won)."""
     out = ["fft"]
-    for route, points in route_points(kind).items():
+    for route, points in SEVEN_POINTS.items():
         if all(wins[p] for p in points):
             out.append(other_route(kind) if route == "other" else route)
     return out
@@ -371,7 +355,7 @@ def shape_region(rows: Dict[str, dict], card: str, what: str, kind: str) -> Opti
 def route_note(kind: str) -> str:
     """Which shape measured which route, for a ``_why``."""
     return "; ".join("%s: %s" % (other_route(kind) if r == "other" else r, ", ".join(p))
-                     for r, p in route_points(kind).items())
+                     for r, p in SEVEN_POINTS.items())
 
 
 _DOC = [

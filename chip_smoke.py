@@ -67,13 +67,13 @@ for the syntheses of C, D, I, J, L, M, K, P, S and O) at a power of two
 from 64 to 4096, the window-folded products elsewhere (R, L, M, P, S,
 O's synthesis, E, F, G, H, J, C, D, I and K's synthesis take a third route,
 the mixed-radix FFT, at even 5-smooth n_fft; R, the magnitude encode, L,
-M, P, S, O's synthesis, E, F, J and K's synthesis also at even 7-smooth
-n_fft with a factor 7, on their radix-7 instances, the roundtrips, J and K's
-synthesis where their block fits); so do the log-mel
+M, P, S, O's synthesis, E, F, G, H, J and K's synthesis also at even
+7-smooth n_fft with a factor 7, on their radix-7 instances, the roundtrips,
+G, H, J and K's synthesis where their block fits); so do the log-mel
 forward and fit (A and B: E's and F's FFT, smooth and radix-7 instances under the
 taps' own window, the factored front end elsewhere), the representations' forward
-and fit statistics with taps (G and H: G and H full-K's FFT and smooth
-instances under the taps' own window), and O's polish
+and fit statistics with taps (G and H: G and H full-K's FFT, smooth and
+radix-7 instances under the taps' own window), and O's polish
 (``gl_polish_fft_kernel``: every projection of a chunk in one launch, where
 its block holds the grid, on the FFT route, the smooth route or its radix-7
 instance; two launches a projection elsewhere, the analysis's
@@ -87,9 +87,9 @@ which come out bit-identical; A within 2e-5 and B and H with taps with their
 extrema bit-identical and sums within 1e-5, at every power of two from 64
 under hann, hamming and blackman) and against a float64 oracle at 1024, 512,
 2048 and 4096 (C, D, I, K, G, H, P, S and O's synthesis at every power of
-two from 64), the factored route at 896/224 (G, H) and 1408/352 (A, B), and
-the product route at 896/224 (G, H, C, D, I),
-8192/2048 (J) and 1408/352 (R, L, M, P, S, O's synthesis, E, F, J, K),
+two from 64), the factored route at 1408/352 (A, B, G, H), and
+the product route at 896/224 (C, D, I),
+8192/2048 (J) and 1408/352 (R, L, M, P, S, O's synthesis, E, F, G, H, J, K),
 and the smooth route of R, L, M, P, S, O's synthesis and O's polish (the
 mixed-radix FFT) at 1200/300, 960/240, 768/192, 400/100 and 1920/480, and
 of R, the magnitude encode, L, M, P, S and O's synthesis (its radix-7
@@ -109,8 +109,12 @@ J's radix-7 instance at 896/224, 896/128, 1344/192, 1568/224, 672/96 and
 4032/1008 (bit-identical, within 1e-5 of the float64 oracle), of
 J, C, D and I at those seven framings (bit-identical, D to four C, every
 frame of C, I and J within 1e-5 of the float64 oracle), of G and H full-K
-at those seven (within 1e-6 of the plain version, 1e-5 of the float64
-oracle; G and H with taps at 768/192 under hann, hamming and blackman), and
+at those seven and (their radix-7 instance) at 896/224, 896/128, 1568/224,
+1344/192 and 672/96 (within 1e-6 of the plain version, 1e-5 of the float64
+oracle; G and H with taps at 768/192 under hann, hamming and blackman, and
+at 896/224 under hann with the bank; G with the IF and a bank at
+4032/2016, where no smooth block fits, on the product and factored
+routes), and
 of K's
 synthesis at those seven and 1200/300 (bit-identical, within 1e-5 of a
 float64 istft);
@@ -140,7 +144,10 @@ puts G and H with taps there), the STFT(896, 224) log-mel and DGT(896, 224)
 magnitude chains' fit and forward (A, B, E, F on their radix-7 instances),
 and the magnitude chain's ``pghi_gl`` (J on its radix-7 instance), the
 STFT(896, 224) Polar and DGT(896, 224) PolarIF chains' fit and forward: G,
-H factored and G, H full-K on the product route, 896 = 2^7 7; the
+H and G, H full-K on their radix-7 instances (timed in turns with the
+factored and product routes 896 took before); the STFT(1408, 352) Polar
+and DGT(1408, 352) PolarIF chains: G, H factored and G, H full-K on the
+product route; the
 STFT(1408, 352) log-mel and DGT(1408, 352) magnitude chains: A, B factored
 and E, F on the product route, the latter's ``pghi`` and ``pghi_gl``
 inverts K's synthesis and J on the product route, 1408 = 2^7 11).  Phase
@@ -215,6 +222,10 @@ J_SEVEN_SHAPES = ((896, 224), (896, 128), (1344, 192), (1568, 224), (672, 96), (
 # and K's synthesis's: 2^7 7 and 2^6 3 7 at overlap 4, 2^5 7^2 at overlap
 # 7, 2^2 3^2 7^2 at overlap 7, 2^6 3^2 7 at overlap 4
 K_SEVEN_SHAPES = ((896, 224), (1344, 336), (1568, 224), (1764, 252), (4032, 1008))
+# the framings phase 3 holds G's and H's radix-7 instance at (full-K, no
+# bank): 2^7 7 at overlap 4 and 7, 2^5 7^2 (radices 7 7) at overlap 7, 2^6 3
+# 7 at overlap 7, 2^5 3 7 at overlap 7
+REPR_SEVEN_SHAPES = ((896, 224), (896, 128), (1568, 224), (1344, 192), (672, 96))
 # the framings of R's, L's and the decode's radix-7 instances whose plans
 # phase 5 sweeps: 2^7 7, 2^6 3 7, 2^8 7, 2^4 3 5 7 at overlap 4
 SEVEN_SHAPES = ((896, 224), (1344, 336), (1792, 448), (1680, 420))
@@ -231,7 +242,8 @@ def log(msg: str) -> None:
 
 #: the smooth route's plan sweep: the framings it times E and F at
 PLAN_SWEEP_SHAPES = ((768, 256), (768, 192), (640, 160), (1536, 384), (1920, 480))
-#: and those of the radix-7 instances of E and F, J and K's synthesis
+#: and those of the radix-7 instances of E and F, J and K's synthesis (and
+#: of G and H: the first)
 SEVEN_PLAN_SWEEP_SHAPES = ((896, 224), (1568, 224))
 
 
@@ -379,9 +391,10 @@ def seven_plan_sweep(sx: torch.Tensor, repeats: int) -> dict:
 
 def repr_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
     """G and H full-K (the DGT's gaussian window) on the smooth route at each
-    of PLAN_SWEEP_SHAPES under every plan the kernels take (frame tile 32,
-    16, 8, 4, 2 x 1, 2, 4, ... FFTs side by side, within the route's teams
-    and shared memory), with the IF and a mel bank (G's; H has none) and
+    of PLAN_SWEEP_SHAPES and on its radix-7 instance at 896/224 (the first
+    of SEVEN_PLAN_SWEEP_SHAPES) under every plan the kernels take (frame
+    tile 32, 16, 8, 4, 2 x 1, 2, 4, ... FFTs side by side, within the route's
+    teams and shared memory), with the IF and a mel bank (G's; H has none) and
     with the angle and no bank, the card's time a call back to back
     (device_ms); G's output must be bit-identical under every plan (the
     frame pairs, the halo's included, do not depend on it).  Returns per
@@ -394,7 +407,7 @@ def repr_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
     rule = spectral._repr_plan
     out = {}
     try:
-        for n_fft, hop in PLAN_SWEEP_SHAPES:
+        for n_fft, hop in PLAN_SWEEP_SHAPES + SEVEN_PLAN_SWEEP_SHAPES[:1]:
             w = gaussian_dgt_window(n_fft, device=mono.device)
             ov, F = n_fft // hop, n_fft // 2 + 1
             bank = T.Magnitude(mode="bipolar", n_fft=n_fft).mel_bank
@@ -722,13 +735,16 @@ def melspec_smooth_resources(res: dict, seven: bool = False) -> dict:
 def repr_smooth_resources(res: dict) -> dict:
     """The build log's resources of G's and H's smooth instances
     (``repr_forward_kernel`` / ``repr_stats_kernel<kInt16, kFrontSmooth>``,
-    ``Li3E`` in the mangled name), by the labels ``G``, ``H`` (float32 rows)
-    and ``G int16``, ``H int16``."""
+    ``Li3E`` in the mangled name) and of their radix-7 instances
+    (``<kInt16, kFrontSmooth7>``, ``Li4E``), by the labels ``G``, ``H``
+    (float32 rows), ``G int16``, ``H int16`` and ``G seven``, ``H seven``,
+    ``G seven int16``, ``H seven int16``."""
     out = {}
     for k, v in res.items():
         for kern, label in (("repr_forward_kernel", "G"), ("repr_stats_kernel", "H")):
-            if kern in k and "Li3E" in k:
-                out[label + (" int16" if "ILb1ELi3E" in k else "")] = v
+            for front, seven in (("Li3E", ""), ("Li4E", " seven")):
+                if kern in k and front in k:
+                    out[label + seven + (" int16" if "ILb1E" + front in k else "")] = v
     return out
 
 
@@ -819,12 +835,12 @@ def smooth_instance_resources(res: dict) -> dict:
     """The build log's resources of every mixed-radix instance of every
     kernel, by its mangled name: the sessions' (encode, roundtrip, decode,
     polish, O's analysis; their kSmooth argument true), E's and F's (the radix-7 ones
-    too), G's and H's, the Griffin-Lim steps' and K's synthesis's (J's and
-    K's radix-7 ones too)."""
+    too), G's and H's (the radix-7 ones too), the Griffin-Lim steps' and K's
+    synthesis's (J's and K's radix-7 ones too)."""
     out = dict(melspec_smooth_resources(res))
     out.update(melspec_smooth_resources(res, seven=True))
     out.update({k: v for k, v in res.items() if ("repr_forward_kernel" in k or "repr_stats_kernel" in k)
-                and "Li3E" in k})
+                and ("Li3E" in k or "Li4E" in k)})
     out.update(gl_smooth_resources(res))
     for k, v in res.items():
         if ("pghi_synthesize_fft_kernelILb1E" in k or "gl_fullk_fft_kernelILb1ELb1EE" in k
@@ -2348,10 +2364,12 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
       the 896/224 one its radix-7 instance (``:smooth7``, timed in turns
       likewise), the 1408/352 one its product route, each converging like
       the eager route; G and H full-K
-      through ``DGT(768, 256) + PolarIF``'s fit and
-      forward (product), G and H with taps through STFT(768, 192) +
-      Polar's (factored), the magnitude's fit and channel 1 against the
-      eager chain."""
+      through ``DGT(768, 256) + PolarIF``'s fit and forward (the smooth
+      route), ``DGT(896, 224) + PolarIF``'s (its radix-7 instance, counted
+      ``:smooth7``, timed in turns with the product route 896 took before)
+      and ``DGT(1408, 352) + PolarIF``'s (product), G and H with taps
+      through the STFT + Polar chains at the same shapes (factored at
+      1408), the magnitude's fit and channel 1 against the eager chain."""
     from acids_transforms_tpu_torch import streaming
     from acids_transforms_tpu_torch import transforms as T
     from acids_transforms_tpu_torch.ops.cuda import pghi_kernel as pk
@@ -2902,12 +2920,14 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
     fit_forward("STFT(1408, 352) log-mel chain (A, B factored)", stft_logmel(1408, 352),
                 ("fused_melspec:factored", "fused_melspec_stats:factored"))
     # G and H through the entry points: STFT + Polar (taps) and DGT +
-    # PolarIF (full-K), fit and forward, at 768 (the smooth route) and at 896
-    # (2^7 7: the factored and the product route), each against the eager
-    # chain, one launch each of H and G; the fit + forward's time (one call
-    # alone, host clock to the card's end, median of 3) on its route and, at
-    # 768, in turns with the route 768 ran before (old, new, new, old)
-    def repr_chain(label, chain, want, old):
+    # PolarIF (full-K), fit and forward, at 768 (the smooth route), at 896
+    # (2^7 7: the smooth route's radix-7 instance, counted `:smooth7` for its
+    # rows) and at 1408 (2^7 11: the factored and the product route), each
+    # against the eager chain, one launch each of H and G; the fit +
+    # forward's time (one call alone, host clock to the card's end, median
+    # of 3) on its route and, at 768 and 896, in turns with the route the
+    # shape ran before (old, new, new, old)
+    def repr_chain(label, chain, want, old, seven=False):
         zero()
         fitted = att.fuse_fit(chain, backend="kernel")(audio)
         y = att.fuse_forward(fitted, backend="kernel")(audio)
@@ -2917,7 +2937,7 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
             f"{ {k: v for k, v in sp.launches.items() if v} }, routes {got}")
         require(got == {k: 1 for k in want} and launched() == 2, f"{label}: H and G must launch once each on {want}")
         for k, v in got.items():
-            counts[k] += v
+            counts[k + ("7" if seven else "")] += v
         e_fit = chain.fit(audio)
         e_m = max(abs(getattr(fitted[2].magnitude.norm, a).item() - getattr(e_fit[2].magnitude.norm, a).item())
                   for a in ("offset", "scale")) / abs(e_fit[2].magnitude.norm.scale.item())
@@ -2945,20 +2965,27 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
             return
         turns = [on_old(lambda: time_ms(fit_fwd, 3)), time_ms(fit_fwd, 3), time_ms(fit_fwd, 3),
                  on_old(lambda: time_ms(fit_fwd, 3))]
+        new = "radix-7" if seven else "smooth"
         log(f"    fit + forward, one call alone (host clock to the card's end, median of 3), in turns {old} route "
-            f"(the route this shape took before), smooth, smooth, {old}: {' / '.join(f'{t:.3f}' for t in turns)} ms")
+            f"(the route this shape took before), {new}, {new}, {old}: {' / '.join(f'{t:.3f}' for t in turns)} ms")
 
     repr_chain("STFT(768, 192) + Polar (G, H smooth)", T.Mono() + T.STFT(n_fft=768, hop_length=192) + T.Polar(
         magnitude_args={"mode": "bipolar", "n_fft": 768}), ("fused_repr_stats:smooth", "fused_spectral_repr:smooth"),
         "factored")
-    repr_chain("STFT(896, 224) + Polar (G, H factored)", T.Mono() + T.STFT(n_fft=896, hop_length=224) + T.Polar(
-        magnitude_args={"mode": "bipolar", "n_fft": 896}), ("fused_repr_stats:factored", "fused_spectral_repr:factored"),
-        None)
+    repr_chain("STFT(896, 224) + Polar (G, H radix-7)", T.Mono() + T.STFT(n_fft=896, hop_length=224) + T.Polar(
+        magnitude_args={"mode": "bipolar", "n_fft": 896}), ("fused_repr_stats:smooth", "fused_spectral_repr:smooth"),
+        "factored", seven=True)
+    repr_chain("STFT(1408, 352) + Polar (G, H factored)", T.Mono() + T.STFT(n_fft=1408, hop_length=352) + T.Polar(
+        magnitude_args={"mode": "bipolar", "n_fft": 1408}),
+        ("fused_repr_stats:factored", "fused_spectral_repr:factored"), None)
     repr_chain("DGT(768, 256) + PolarIF (G, H full-K smooth)", T.Mono() + T.DGT(n_fft=768, hop_length=256) + T.PolarIF(
         magnitude_args={"mode": "bipolar", "n_fft": 768}),
         ("fused_repr_stats_fullk:smooth", "fused_spectral_repr_fullk:smooth"), "product")
-    repr_chain("DGT(896, 224) + PolarIF (G, H full-K product)", T.Mono() + T.DGT(n_fft=896, hop_length=224)
+    repr_chain("DGT(896, 224) + PolarIF (G, H full-K radix-7)", T.Mono() + T.DGT(n_fft=896, hop_length=224)
                + T.PolarIF(magnitude_args={"mode": "bipolar", "n_fft": 896}),
+               ("fused_repr_stats_fullk:smooth", "fused_spectral_repr_fullk:smooth"), "product", seven=True)
+    repr_chain("DGT(1408, 352) + PolarIF (G, H full-K product)", T.Mono() + T.DGT(n_fft=1408, hop_length=352)
+               + T.PolarIF(magnitude_args={"mode": "bipolar", "n_fft": 1408}),
                ("fused_repr_stats_fullk:product", "fused_spectral_repr_fullk:product"), None)
     # J through that chain's pghi_gl inversion, converging like the eager
     # loop from the same seed: the smooth route at 768/256 (2^8 3), its
@@ -3332,7 +3359,9 @@ def sinebank_regions_phase(dev, audio, mono, stream, wrappers):
               ("4h DGT(896, 224)", "melspec", 896, 224, False), ("4h STFT(896, 224) + Polar", "phase", 896, 224, True),
               ("4h DGT(896, 224) + PolarIF", "if", 896, 224, False),
               ("4h STFT(1408, 352) log-mel", "melspec", 1408, 352, True),
-              ("4h DGT(1408, 352)", "melspec", 1408, 352, False)]
+              ("4h DGT(1408, 352)", "melspec", 1408, 352, False),
+              ("4h STFT(1408, 352) + Polar", "phase", 1408, 352, True),
+              ("4h DGT(1408, 352) + PolarIF", "if", 1408, 352, False)]
     main_ok = True
     for label, kind, n_fft, hop, taps in shapes:
         if kind == "melspec":
@@ -4227,15 +4256,18 @@ def main() -> int:
     require(len(smooth_res) == 6 and all(r["registers"] <= 128 and not r.get("spill_stores") and not r.get("spill_loads")
                                          for r in smooth_res.values()),
             "the melspec smooth instances: six, at most 128 registers, no spill")
-    # G's and H's smooth instances: at most 128 registers (two blocks an SM);
-    # their spill reported (the FFT instance of G spills 4 B)
+    # G's and H's smooth instances and their radix-7 instances: at most 128
+    # registers (two blocks an SM); their spill reported (the FFT instance of
+    # G spills 4 B)
     repr_res = repr_smooth_resources(_build.kernel_resources())
     for name, res in repr_res.items():
         log(f"    {name} smooth instance: {res['registers']} registers, spill stores / loads "
-            f"{res.get('spill_stores', 0)} / {res.get('spill_loads', 0)} B (the representations' smooth route)")
-    require(set(repr_res) == {"G", "H", "G int16", "H int16"} and all(r["registers"] <= 128
-                                                                       for r in repr_res.values()),
-            f"the representations' smooth instances: four, at most 128 registers (found {sorted(repr_res)})")
+            f"{res.get('spill_stores', 0)} / {res.get('spill_loads', 0)} B (the representations' smooth route"
+            f"{', radix 7' if 'seven' in name else ''})")
+    require(set(repr_res) == {"G", "H", "G int16", "H int16", "G seven", "H seven", "G seven int16",
+                              "H seven int16"} and all(r["registers"] <= 128 for r in repr_res.values()),
+            f"the representations' smooth and radix-7 instances: eight, at most 128 registers (found "
+            f"{sorted(repr_res)})")
     for tile_t in spectral.TILES:
         require(
             lib.att_melspec_smem_bytes(tile_t, HOP, N_FFT // HOP, N_FFT // 2 + 1)
@@ -4399,7 +4431,7 @@ def main() -> int:
                 continue
             hop_s, f_s = n_fft_s // ov_s, n_fft_s // 2 + 1
             tile_t, teams = spectral._kernel_plan(n_fft_s, hop_s, None)
-            require(teams > 0 and spectral.melspec_route(n_fft_s, "melspec") == "smooth"
+            require(teams > 0 and spectral.melspec_route(n_fft_s) == "smooth"
                     and spectral._kernel_plan(n_fft_s, hop_s, (0.5, -0.25)) == (tile_t, teams),
                     f"{n_fft_s}/{hop_s}: E, F, A and B must take the smooth route")
             for t_s in spectral.TILES:
@@ -4438,25 +4470,50 @@ def main() -> int:
     # 7-smooth shape with a factor 7 the gate takes (hop a multiple of 32,
     # overlap 2 to 8; 42 shapes), the plan's layout against the source's at
     # the plan's team count and one team; 4032/2016 refused on both routes
-    # (no smooth plan, no product tile); G and H keep their product and
-    # factored front ends there; the six instances' registers (at most 128:
-    # two blocks an SM, as _pick_smooth_plan counts) and spill
+    # (no smooth plan, no product tile); the six instances' registers (at
+    # most 128: two blocks an SM, as _pick_smooth_plan counts) and spill.
+    # G and H (full-K and with taps, every second, with and without the
+    # bank) on their radix-7 instance at the same shapes, every plan's layout
+    # against the source's at the plan's team count and one team, but G with
+    # the IF and a bank at 4032/2016, which keeps its product / factored
+    # tile (8 frames; no smooth block fits)
     mseven_res = melspec_smooth_resources(_build.kernel_resources(), seven=True)
     for name, res in mseven_res.items():
         log(f"    {name}: {res['registers']} registers, spill stores / loads {res.get('spill_stores', 0)} / "
             f"{res.get('spill_loads', 0)} B (the melspec radix-7 instance)")
     require(len(mseven_res) == 6 and all(r["registers"] <= 128 for r in mseven_res.values()),
             f"the melspec radix-7 instances: six, at most 128 registers (found {len(mseven_res)})")
-    n_seven_m = n_seven_refused = 0
+    n_seven_m = n_seven_refused = n_seven_r = n_seven_r_kept = 0
     for n_fft_s in [n for n in range(64, 4097, 2) if ff.fft_covers_smooth7(n) and n % 7 == 0]:
         for ov_s in range(2, 9):
             if n_fft_s % ov_s or (n_fft_s // ov_s) % 32:
                 continue
             hop_s, f_s = n_fft_s // ov_s, n_fft_s // 2 + 1
-            require(spectral.melspec_route(n_fft_s, "melspec") == "smooth"
-                    and spectral.melspec_route(n_fft_s, "repr") == "other"
-                    and spectral._repr_plan(n_fft_s, hop_s, None, False, "if", True)[1] == 0,
-                    f"{n_fft_s}/{hop_s}: E, F, A, B smooth and G, H product / factored")
+            require(spectral.melspec_route(n_fft_s) == "smooth",
+                    f"{n_fft_s}/{hop_s}: E, F, A, B, G and H must take the smooth route")
+            for st in (0, 1):
+                for second, sel in spectral.SECONDS.items():
+                    for mel in ((0,) if st else (0, 1)):
+                        tile_r, teams_r = spectral._repr_plan(n_fft_s, hop_s, None, bool(st), second, bool(mel))
+                        require(spectral._repr_plan(n_fft_s, hop_s, (0.5, -0.25), bool(st), second, bool(mel))
+                                == (tile_r, teams_r), f"{n_fft_s}/{hop_s}: G / H with taps plan otherwise")
+                        if teams_r == 0:
+                            require((n_fft_s, hop_s, st, second, mel) == (4032, 2016, 0, "if", 1)
+                                    and tile_r == 8 and lib.att_repr_smem_bytes(tile_r, hop_s, ov_s, f_s, st)
+                                    == spectral._repr_smem_bytes(tile_r, hop_s, ov_s, f_s, False) <= ff.MAX_SMEM,
+                                    f"{n_fft_s}/{hop_s}: G / H must take the radix-7 instance")
+                            n_seven_r_kept += 1
+                            continue
+                        for tm in sorted({1, teams_r}):
+                            require(lib.att_repr_fft_smem_bytes(tile_r, hop_s, ov_s, f_s, tm, st, sel, mel)
+                                    == spectral._repr_fft_smem_bytes(tile_r, hop_s, ov_s, f_s, tm, bool(st),
+                                                                     second, bool(mel)),
+                                    f"{n_fft_s}/{hop_s}: the representations' radix-7 shared-memory size: "
+                                    "wrapper and source disagree")
+                        require(spectral._repr_fft_smem_bytes(tile_r, hop_s, ov_s, f_s, teams_r, bool(st), second,
+                                                              bool(mel)) <= ff.MAX_SMEM,
+                                f"{n_fft_s}/{hop_s}: G / H's radix-7 plan exceeds shared memory")
+                        n_seven_r += 1
             n_seven_m += 1
             if spectral._pick_smooth_plan(n_fft_s, hop_s) is None:
                 for tp in (None, (0.5, -0.25)):
@@ -4483,6 +4540,16 @@ def main() -> int:
         f"1568/224 {spectral._kernel_plan(1568, 224, None)}, 1344/448 {spectral._kernel_plan(1344, 448, None)} as "
         f"(frame tile, FFTs side by side)")
     require(n_seven_m == 42 and n_seven_refused == 1, "the melspec radix-7 route: 42 shapes, 4032/2016 refused")
+    log(f"    G and H on the radix-7 instance: {n_seven_r} plans of 42 shapes (each second, with and without the "
+        f"bank; G and H alike) whose shared-memory sizes agree, {n_seven_r_kept} on the product / factored tile "
+        f"(G with the IF and a bank at 4032/2016: {spectral._repr_plan(4032, 2016, None, False, 'if', True)}); "
+        f"896/224 G / H with the IF {spectral._repr_plan(896, 224, None, False, 'if', True)} / "
+        f"{spectral._repr_plan(896, 224, None, True, 'if', False)}, G / H Polar with taps "
+        f"{spectral._repr_plan(896, 224, (0.5, -0.25), False, 'phase', True)} / "
+        f"{spectral._repr_plan(896, 224, (0.5, -0.25), True, 'phase', False)}, 1568/224 G Polar with taps "
+        f"{spectral._repr_plan(1568, 224, (0.5, -0.25), False, 'phase', True)} as (frame tile, FFTs side by side)")
+    require(n_seven_r == 42 * 9 - 1 and n_seven_r_kept == 1,
+            "G and H's radix-7 route: every launch at 42 shapes but G with the IF and a bank at 4032/2016")
     # C / D / I and J on the smooth route: every shape their gates take (hop
     # a multiple of 32, overlap 2 to 8) takes it (no smooth shape falls back
     # to the product), the plans' layouts at their team counts and one team;
@@ -4774,7 +4841,7 @@ def main() -> int:
         y_p = spectral.fused_melspec_reference(x, n_fft, hop, **kw)
         torch.cuda.synchronize()
         if taps is not None:
-            route = {"fft": "fft", "smooth": "smooth", "other": "factored"}[spectral.melspec_route(n_fft, "melspec")]
+            route = {"fft": "fft", "smooth": "smooth", "other": "factored"}[spectral.melspec_route(n_fft)]
             require(spectral.routes[f"fused_melspec:{route}"] == 1, f"A {name}: not on the {route} route")
             A = {"fft": "A", "smooth": "A_smooth", "factored": "A_factored"}[route] + seven_suffix(n_fft, route)
         e = rel_err(y_k, y_p)
@@ -4815,7 +4882,7 @@ def main() -> int:
         s_k = spectral.fused_melspec_stats(x, n_fft, hop, "log1p", taps=taps, window=window)
         s_p = spectral.fused_melspec_stats_reference(x, n_fft, hop, "log1p", taps=taps, window=window)
         if taps is not None:
-            route = {"fft": "fft", "smooth": "smooth", "other": "factored"}[spectral.melspec_route(n_fft, "melspec")]
+            route = {"fft": "fft", "smooth": "smooth", "other": "factored"}[spectral.melspec_route(n_fft)]
             require(spectral.routes[f"fused_melspec_stats:{route}"] == 1, f"B {name}: not on the {route} route")
             if route != "factored":
                 same = s_k["min"].item() == s_p["min"].item() and s_k["max"].item() == s_p["max"].item()
@@ -5062,7 +5129,7 @@ def main() -> int:
     # above.
     def check_fullk_routes(name, x, n_fft, hop):
         w = gaussian_dgt_window(n_fft, device=dev)
-        front = {"fft": "fft", "smooth": "smooth", "other": "product"}[spectral.melspec_route(n_fft, "melspec")]
+        front = {"fft": "fft", "smooth": "smooth", "other": "product"}[spectral.melspec_route(n_fft)]
         fft = front != "product"
         kw = dict(mel_bank=None, offset=0.0, scale=1.0, contrast="none", taps=None, window=w)
         spectral.reset_launches()
@@ -5248,26 +5315,30 @@ def main() -> int:
     # to 1e-5, the budget of channel 1 (measured: 3e-7 at n_fft 1024, 1e-6
     # at 2048 and 4096 where the factored front end adds hop-long chunk
     # products), and unweighted at bins above 1e-3 of the largest to 1e-3 rad.
-    def repr_route(n_fft, taps):
-        """The route of G and H at n_fft (spectral.melspec_route's rule for
-        the "repr" family) and the suffix of its rows' keys."""
-        route = spectral.melspec_route(n_fft, "repr")
+    def repr_route(n_fft, hop, taps, stats, second, mel):
+        """The route of G (or, with ``stats``, H) at this shape
+        (spectral._repr_route: melspec_route's rule, but the product or
+        factored front end where no smooth block fits) and the suffix of its
+        rows' keys ("_smooth7" on the radix-7 instance)."""
+        route = spectral._repr_route(n_fft, hop, taps, stats, second, mel)
         if route == "other":
             route = "factored" if taps is not None else "product"
-        return route, {"fft": "", "smooth": "_smooth", "factored": "_factored", "product": "_product"}[route]
+        suffix = {"fft": "", "smooth": "_smooth", "factored": "_factored", "product": "_product"}[route]
+        return route, suffix + seven_suffix(n_fft, route)
 
     def check_repr(name, x, n_fft, hop, wname, second, bank, weighted=False, taps=None):
         """G (with taps: the FFT route under the taps' own window wherever
         n_fft is a power of two from 64 to 4096, the smooth route where it is
-        even and 5-smooth, row G_smooth; the factored front end elsewhere,
-        row G_factored) or G full-K against its plain version; with taps on
-        the FFT or smooth route also against the float64 oracle (torch.stft
-        under the cosine-sum window in float64): channel 1 and the
-        |X|-weighted angle (or the IF's phase steps) within 1e-4, the JAX
+        even and 5-smooth, row G_smooth, and its radix-7 instance where it is
+        even and 7-smooth with a factor 7, row G_smooth7; the factored front
+        end elsewhere, row G_factored) or G full-K against its plain version;
+        with taps on the FFT or smooth route also against the float64 oracle
+        (torch.stft under the cosine-sum window in float64): channel 1 and
+        the |X|-weighted angle (or the IF's phase steps) within 1e-4, the JAX
         package's budget."""
         _, taps_w, window = front_end(wname, n_fft)
         taps = taps_w if taps is None else taps
-        route, suffix = repr_route(n_fft, taps)
+        route, suffix = repr_route(n_fft, hop, taps, False, second, bank is not None and second != "imag")
         fft = route in ("fft", "smooth")
         require(fft == (spectral._repr_plan(n_fft, hop, taps, False, second,
                                             bank is not None and second != "imag")[1] > 0),
@@ -5330,15 +5401,15 @@ def main() -> int:
     # as B and F, channel 2 within the elementwise difference of the two
     # versions' channels (a bin at the +-pi boundary may land on either side).
     # H with taps takes the FFT route wherever n_fft is a power of two from
-    # 64 to 4096 and the smooth route where it is even and 5-smooth (H
-    # full-K's instance under the taps' own window: G's channels are then
-    # those of G full-K under that window, and the extrema are bit-identical
-    # to the plain version's), the factored front end elsewhere (row
-    # H_factored)
+    # 64 to 4096 and the smooth route where it is even and 7-smooth (its
+    # radix-7 instance where n_fft has a factor 7; H full-K's instance under
+    # the taps' own window: G's channels are then those of G full-K under
+    # that window, and the extrema are bit-identical to the plain
+    # version's), the factored front end elsewhere (row H_factored)
     def check_repr_stats(name, x, n_fft, hop, wname, second, weighted=False, taps=None):
         _, taps_w, window = front_end(wname, n_fft)
         taps = taps_w if taps is None else taps
-        route, suffix = repr_route(n_fft, taps)
+        route, suffix = repr_route(n_fft, hop, taps, True, second, False)
         fft = route in ("fft", "smooth")
         require(fft == (spectral._repr_plan(n_fft, hop, taps, True, second, False)[1] > 0),
                 f"H {name}: the plan does not follow the route rule")
@@ -5431,20 +5502,22 @@ def main() -> int:
                       contrast="none", taps=(0.5, -0.25))
 
     # G and H full-K by route.  The FFT route at every power of two it takes
-    # (hop n_fft / 4; 1024/128 for overlap 8) and the smooth route at every
-    # SMOOTH_SHAPES framing (even 5-smooth n_fft), Polar, weighted PolarIF
-    # and Cartesian without mel, contrast or affine, against the plain
-    # version: both channels within 1e-6 of their largest value (the plain
-    # version repeats the kernel's float32 operations in order and atan2f is
-    # torch's atan2 on the card: measured bit-identical on the FFT route),
-    # against the float64 oracle (torch.stft in float64): |X| and Re / Im
-    # within 1e-5 of the largest value, the angle (or the IF's phase steps)
-    # weighted by |X| / max|X| within 1e-5; the launches on the route; H as
-    # above.  The product route (n_fft 896 = 2^7 7) and the factored one
-    # (hann taps) at 896/224 as check_repr / check_repr_stats hold them.
+    # (hop n_fft / 4; 1024/128 for overlap 8), the smooth route at every
+    # SMOOTH_SHAPES framing (even 5-smooth n_fft) and its radix-7 instance
+    # at every REPR_SEVEN_SHAPES framing (even 7-smooth n_fft with a factor
+    # 7), Polar, weighted PolarIF and Cartesian without mel, contrast or
+    # affine, against the plain version: both channels within 1e-6 of their
+    # largest value (the plain version repeats the kernel's float32
+    # operations in order and atan2f is torch's atan2 on the card: measured
+    # bit-identical on the FFT route), against the float64 oracle
+    # (torch.stft in float64): |X| and Re / Im within 1e-5 of the largest
+    # value, the angle (or the IF's phase steps) weighted by |X| / max|X|
+    # within 1e-5; the launches on the route; H as above.  The product route
+    # (n_fft 1408 = 2^7 11) and the factored one (hann taps) at 1408/352 as
+    # check_repr / check_repr_stats hold them.
     def check_repr_route(name, x, n_fft, hop):
         w = gaussian_dgt_window(n_fft, device=dev)
-        route = spectral.melspec_route(n_fft, "repr")
+        route = spectral.melspec_route(n_fft)
         require(route in ("fft", "smooth"), f"G / H full-K {name}: no FFT or smooth route's shape")
         S = torch.stft(x.double(), n_fft, hop, window=w.double(), center=True, pad_mode="reflect",
                        return_complex=True).transpose(-2, -1)
@@ -5483,7 +5556,7 @@ def main() -> int:
                 f"(tol 1e-05)")
             require(all(torch.isfinite(t).all().item() for t in (k1, k2)), f"G full-K {name}: not finite")
             require(e1 <= 1e-6 and e2 <= 1e-6 and e_o <= 1e-5, f"G full-K {name} {second} out of budget")
-            key = "G_fk" if route == "fft" else "G_fk_smooth"
+            key = ("G_fk" if route == "fft" else "G_fk_smooth") + seven_suffix(n_fft, route)
             errs[key] = max(errs.get(key, 0.0), abs_err(k1, p1))
             check_repr_stats(name, x, n_fft, hop, "gaussian", second, weighted)
             del k1, k2, p1, p2
@@ -5494,7 +5567,7 @@ def main() -> int:
         check_repr_route(f"{n_fft}/{hop_s}", rag, n_fft, hop_s)
     check_repr_route("1024/128", rag, 1024, 128)
     check_repr_route("main shape, 16 clips", mono[:16], N_FFT, HOP)
-    for n_fft, hop in SMOOTH_SHAPES:
+    for n_fft, hop in SMOOTH_SHAPES + REPR_SEVEN_SHAPES:
         check_repr_route(f"{n_fft}/{hop}", rag, n_fft, hop)
     # G and H on the smooth route with the mel bank and the affine (full-K
     # at 768/256, hann taps at 768/192: the chains' configurations)
@@ -5502,15 +5575,36 @@ def main() -> int:
         bank_s = T.Magnitude(mode="bipolar", n_fft=n_fft).mel_bank
         check_repr(f"{n_fft}/{hop}", rag, n_fft, hop, wname, "if", bank_s, True)
         check_repr(f"{n_fft}/{hop}", rag, n_fft, hop, wname, "phase", bank_s)
-    # the product route and the factored one (hann taps): n_fft 896 = 2^7 7
-    bank_p = T.Magnitude(mode="bipolar", n_fft=896).mel_bank
-    for second, weighted in (("phase", False), ("if", True), ("imag", False)):
-        for wname, fk in (("gaussian", "_fullk:product"), ("hann", ":factored")):
-            check_repr("896/224", rag, 896, 224, wname, second, None if second == "imag" else bank_p, weighted)
-            check_repr_stats("896/224", rag, 896, 224, wname, second, weighted)
-            require(spectral.routes["fused_spectral_repr" + fk] >= 1 and spectral.routes["fused_repr_stats" + fk] >= 1
-                    and not any(spectral.routes[k] for k in spectral.routes if k.endswith((":fft", ":smooth"))),
-                    f"G / H {wname} at 896/224: not on the {fk[fk.index(':') + 1:]} route")
+    # G and H on the radix-7 instance at 896/224 (2^7 7): full-K under the
+    # DGT's gaussian and with hann taps, each second (the IF weighted), with
+    # the bank and the affine (rows G_smooth7, G_fk_smooth7, H_smooth7,
+    # H_fk_smooth7); the product route and the factored one (hann taps) at
+    # 1408/352 (2^7 11; rows G_factored, G_fk_product, H_factored,
+    # H_fk_product)
+    for n_fft, hop, fks in ((896, 224, ("_fullk:smooth", ":smooth")), (1408, 352, ("_fullk:product", ":factored"))):
+        bank_p = T.Magnitude(mode="bipolar", n_fft=n_fft).mel_bank
+        for second, weighted in (("phase", False), ("if", True), ("imag", False)):
+            for wname, fk in zip(("gaussian", "hann"), fks):
+                sfx = fk[fk.index(":"):]
+                check_repr(f"{n_fft}/{hop}", rag, n_fft, hop, wname, second, None if second == "imag" else bank_p,
+                           weighted)
+                on_g = spectral.routes["fused_spectral_repr" + fk] >= 1 and all(
+                    k.endswith(sfx) for k, v in spectral.routes.items() if v)
+                check_repr_stats(f"{n_fft}/{hop}", rag, n_fft, hop, wname, second, weighted)
+                on_h = spectral.routes["fused_repr_stats" + fk] >= 1 and all(
+                    k.endswith(sfx) for k, v in spectral.routes.items() if v)
+                require(on_g and on_h, f"G / H {wname} at {n_fft}/{hop}: not on the {sfx[1:]} route")
+    # G with the IF and a bank at 4032/2016: no smooth block fits, so it
+    # keeps its product (full-K) and factored (hann taps) route, within
+    # check_repr's tolerances of its plain version, which reads the same
+    # rule; H there takes the radix-7 instance
+    bank_4k = T.Magnitude(mode="bipolar", n_fft=4032).mel_bank
+    for wname, fk in (("gaussian", "_fullk:product"), ("hann", ":factored")):
+        check_repr("4032/2016", rag, 4032, 2016, wname, "if", bank_4k, True)
+        require(spectral.routes["fused_spectral_repr" + fk] >= 1 and all(
+            k.endswith(fk[fk.index(":"):]) for k, v in spectral.routes.items() if v),
+            f"G {wname} with the IF and a bank at 4032/2016: not on the {fk[fk.index(':') + 1:]} route")
+        check_repr_stats("4032/2016", rag, 4032, 2016, wname, "if", True)
     spectral.reset_launches()
     torch.cuda.empty_cache()
 
@@ -6034,6 +6128,8 @@ def main() -> int:
     counts["fused_spectral_repr:fft"] = spectral.routes["fused_spectral_repr:fft"]
     for k in ("fused_repr_stats", "fused_spectral_repr"):
         counts[k + ":smooth"] = counts[k + ":factored"] = 0    # the smooth and factored routes': phase 4h
+    for k in ("fused_repr_stats", "fused_spectral_repr", "fused_repr_stats_fullk", "fused_spectral_repr_fullk"):
+        counts[k + ":smooth7"] = 0                             # the radix-7 instance's: phase 4h
     y_pb = att.fuse_forward(p_fit, out_dtype=torch.bfloat16)(audio)
     require(torch.equal(y_pb, y_p.to(torch.bfloat16)), "STFT + Polar: the bf16 forward is not the rounded f32")
     log("  the bf16 forward bit-equal to the rounded float32 one")
@@ -6269,8 +6365,8 @@ def main() -> int:
     bank11 = T.Magnitude(mode="unipolar", contrast="log1p", mel=True, n_fft=n11).mel_bank
     nnz11 = int((bank11 != 0).sum().item())
     kw_a11 = dict(kw, mel_bank=bank11, taps=taps11)
-    require(spectral.melspec_route(n_fft_g, "melspec") == spectral.melspec_route(n_fft_y, "melspec") == "smooth"
-            and spectral.melspec_route(n11, "melspec") == "other",
+    require(spectral.melspec_route(n_fft_g) == spectral.melspec_route(n_fft_y) == "smooth"
+            and spectral.melspec_route(n11) == "other",
             "phase 5: A and B must be smooth at 768 and 896 (its radix-7 instance) and factored at 1408")
 
     def lib_forward_11():
@@ -6295,8 +6391,6 @@ def main() -> int:
                                    return_complex=True).abs())
         return v.sum(), (v * v).sum(), v.min(), v.max()
 
-    factored_y = (4.0 * B * (Ty + ov_y - 1) * hop_y * Fy + 8.0 * el_y * ov_y
-                  + 4.0 * el_y * (2 * len(taps_y) - 1))        # the factored design's front end at 896/224
     smooth_fwd, smooth_stats = melspec_smooth_instance(_build.kernel_resources())
     gl_res = gl_smooth_resources(_build.kernel_resources())
     res_c = next(v for k, v in gl_res.items() if "gl_step_fft_kernel" in k)
@@ -6603,7 +6697,6 @@ def main() -> int:
     w_yd = gaussian_dgt_window(n_fft_y, device=dev)
     kw_yd = dict(kw_e, window=w_yd)
     e_need_y = fft_y + B * Ty * (n_fft_y + 7.0 * Fy)
-    fullk_y = 4.0 * B * Ty * n_fft_y * Fy                    # cos and sin products of every frame
     w11d = gaussian_dgt_window(n11, device=dev)
     kw_e11 = dict(kw_e, window=w11d)
     e_need11 = fft11 + B * T11 * (n11 + 7.0 * F11)
@@ -6834,7 +6927,8 @@ def main() -> int:
     # halo).  Their smooth rows on the same clips (phase 4h's launches): full-K
     # at 768/256 (PolarIF, the DGT's gaussian), with hann taps at 768/192
     # (Polar), the same with smooth_design_flops at their plans' tiles; their
-    # product and factored rows at 896/224 (2^7 7).
+    # radix-7 rows at 896/224 (2^7 7) likewise; their product and factored
+    # rows at 1408/352 (2^7 11).
     g_tile, _ = spectral._repr_plan(N_FFT, HOP, None, False, "if", True)
     g_frames = B * -(-Tn // g_tile) * (g_tile + 2)
 
@@ -6870,8 +6964,11 @@ def main() -> int:
     _, hs_blocks = blocks_of(n_fft_g, hop_g, Tg, taps_g, True, "phase", False)
     gks_tile, gks_blocks = blocks_of(n_fft_p, hop_p, Tp, None, False, "if", True)
     hks_tile, hks_blocks = blocks_of(n_fft_p, hop_p, Tp, None, True, "if", False)
-    # G's and H's factored rows and their full-K product rows at 896/224
-    # (phase 4h's STFT(896, 224) + Polar and DGT(896, 224) + PolarIF)
+    # G's and H's radix-7 rows at 896/224 (phase 4h's STFT(896, 224) + Polar
+    # and DGT(896, 224) + PolarIF), with hann taps and full-K
+    gys_tile, gys_blocks = blocks_of(n_fft_y, hop_y, Ty, None, False, "if", True)
+    hys_tile, hys_blocks = blocks_of(n_fft_y, hop_y, Ty, None, True, "if", False)
+    _, hyp_blocks = blocks_of(n_fft_y, hop_y, Ty, taps_y, True, "phase", False)
     bank_gy = T.Magnitude(mode="bipolar", contrast="log1p", mel=True, n_fft=n_fft_y).mel_bank
     nnz_gy = int((bank_gy != 0).sum().item())
     kw_gy = dict(kw_g, mel_bank=bank_gy, taps=taps_y)
@@ -6899,6 +6996,30 @@ def main() -> int:
                        return_complex=True).transpose(-2, -1)
         y1 = (torch.log1p(torch.matmul(S.abs(), bank_gg)) - aff_p[0]) / aff_p[1]
         return y1, (torch.angle(S) - aff_p[2]) / aff_p[3]
+
+    # G's and H's factored rows and their full-K product rows at 1408/352
+    # (phase 4h's STFT(1408, 352) + Polar and DGT(1408, 352) + PolarIF)
+    bank_g11 = T.Magnitude(mode="bipolar", contrast="log1p", mel=True, n_fft=n11).mel_bank
+    nnz_g11 = int((bank_g11 != 0).sum().item())
+    kw_g11 = dict(kw_g, mel_bank=bank_g11, taps=taps11)
+    kw_gk11 = dict(kw_gk, mel_bank=bank_g11, window=w11d)
+    g_need11 = fft11 + B * T11 * (n11 + 7.0 * F11 + 2.0 * nnz_g11 + 22.0 * F11)
+    gif_need11 = g_need11 + 8.0 * el11
+    hif_need11 = fft11 + B * T11 * (n11 + 5.0 * F11 + 20.0 * F11 + 16.0 * F11) + 8.0 * el11
+
+    def stft11(w):
+        return torch.stft(mono, n11, hop11, window=w, center=True, pad_mode="reflect",
+                          return_complex=True).transpose(-2, -1)
+
+    def lib_polar_11():
+        S = stft11(w11)
+        y1 = (torch.log1p(torch.matmul(S.abs(), bank_g11)) - aff_p[0]) / aff_p[1]
+        return y1, (torch.angle(S) - aff_p[2]) / aff_p[3]
+
+    def lib_polarif_11():
+        S = stft11(w11d)
+        y1 = (torch.log1p(torch.matmul(S.abs(), bank_g11)) - aff_r[0]) / aff_r[1]
+        return y1, (lib_if(S) - aff_r[2]) / aff_r[3]
     bank_rp = T.Magnitude(mode="bipolar", n_fft=n_fft_p).mel_bank
     nnz_rp = int((bank_rp != 0).sum().item())
     kw_gkp = dict(kw_gk, mel_bank=bank_rp, window=w_p)
@@ -7014,13 +7135,21 @@ def main() -> int:
              library=lib_polar_g, bound=bound_of(4.0 * B * L + 8.0 * el_g, g_need_g),
              ceiling=ceiling_of(smooth_design_flops(n_fft_g, B * Tg) + 2.0 * B * Tg * nnz_gg + 30.0 * el_g),
              resources=repr_res["G"]),
-        dict(key="G_factored", name="fused_spectral_repr_factored", source=spectral_src,
-             replaces="acids_transforms_tpu/ops/pallas/spectral.py:869", front_end="factored",
-             launches=counts["fused_spectral_repr:factored"],
+        dict(key="G_smooth7", name="fused_spectral_repr_smooth7", source=spectral_src + " (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:869", front_end="smooth",
+             launches=counts["fused_spectral_repr:smooth7"],
              run=lambda: spectral.fused_spectral_repr(mono, n_fft_y, hop_y, "phase", **kw_gy),
              plain=lambda: spectral.fused_spectral_repr_reference(mono, n_fft_y, hop_y, "phase", **kw_gy),
              library=lib_polar_y, bound=bound_of(4.0 * B * L + 8.0 * el_y, g_need_y),
-             ceiling=ceiling_of(factored_y + 2.0 * B * Ty * nnz_gy + 30.0 * el_y)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_y, B * Ty) + 2.0 * B * Ty * nnz_gy + 30.0 * el_y),
+             resources=repr_res["G seven"]),
+        dict(key="G_factored", name="fused_spectral_repr_factored", source=spectral_src,
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:869", front_end="factored",
+             launches=counts["fused_spectral_repr:factored"],
+             run=lambda: spectral.fused_spectral_repr(mono, n11, hop11, "phase", **kw_g11),
+             plain=lambda: spectral.fused_spectral_repr_reference(mono, n11, hop11, "phase", **kw_g11),
+             library=lib_polar_11, bound=bound_of(4.0 * B * L + 8.0 * el11, g_need11),
+             ceiling=ceiling_of(factored11 + 2.0 * B * T11 * nnz_g11 + 30.0 * el11)),
         dict(key="G_fk", name="fused_spectral_repr_fullk", source=spectral_src + " (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:851", front_end="fft",
              launches=counts["fused_spectral_repr_fullk:fft"],
@@ -7037,13 +7166,22 @@ def main() -> int:
              library=lib_polarif_p, bound=bound_of(4.0 * B * L + 8.0 * el_p, gif_need_p),
              ceiling=ceiling_of(smooth_design_flops(n_fft_p, gks_blocks * (gks_tile + 2)) + 2.0 * B * Tp * nnz_rp
                                 + 38.0 * el_p), resources=repr_res["G"]),
-        dict(key="G_fk_product", name="fused_spectral_repr_fullk_product", source=spectral_src,
-             replaces="acids_transforms_tpu/ops/pallas/spectral.py:851", front_end="product",
-             launches=counts["fused_spectral_repr_fullk:product"],
+        dict(key="G_fk_smooth7", name="fused_spectral_repr_fullk_smooth7",
+             source=spectral_src + " (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:851", front_end="smooth",
+             launches=counts["fused_spectral_repr_fullk:smooth7"],
              run=lambda: spectral.fused_spectral_repr(mono, n_fft_y, hop_y, "if", **kw_gky),
              plain=lambda: spectral.fused_spectral_repr_reference(mono, n_fft_y, hop_y, "if", **kw_gky),
              library=lib_polarif_y, bound=bound_of(4.0 * B * L + 8.0 * el_y, gif_need_y),
-             ceiling=ceiling_of(fullk_y * (Ty + 1) / Ty + 2.0 * B * Ty * nnz_gy + 38.0 * el_y)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_y, gys_blocks * (gys_tile + 2)) + 2.0 * B * Ty * nnz_gy
+                                + 38.0 * el_y), resources=repr_res["G seven"]),
+        dict(key="G_fk_product", name="fused_spectral_repr_fullk_product", source=spectral_src,
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:851", front_end="product",
+             launches=counts["fused_spectral_repr_fullk:product"],
+             run=lambda: spectral.fused_spectral_repr(mono, n11, hop11, "if", **kw_gk11),
+             plain=lambda: spectral.fused_spectral_repr_reference(mono, n11, hop11, "if", **kw_gk11),
+             library=lib_polarif_11, bound=bound_of(4.0 * B * L + 8.0 * el11, gif_need11),
+             ceiling=ceiling_of(fullk11 * (T11 + 1) / T11 + 2.0 * B * T11 * nnz_g11 + 38.0 * el11)),
         dict(key="H", name="fused_repr_stats", source=spectral_src + " (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:938", front_end="fft",
              launches=counts["fused_repr_stats:fft"],
@@ -7061,14 +7199,24 @@ def main() -> int:
              ceiling=ceiling_of(smooth_design_flops(n_fft_g, B * Tg) + 36.0 * el_g), resources=repr_res["H"],
              extra=dict(modelled_partials_bytes_ms=2.0 * 4 * hs_blocks * 8 * Fg / PEAK_BYTES_PER_S * 1e3,
                         blocks=hs_blocks)),
-        dict(key="H_factored", name="fused_repr_stats_factored", source=spectral_src,
-             replaces="acids_transforms_tpu/ops/pallas/spectral.py:938", front_end="factored",
-             launches=counts["fused_repr_stats:factored"],
+        dict(key="H_smooth7", name="fused_repr_stats_smooth7", source=spectral_src + " (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:938", front_end="smooth",
+             launches=counts["fused_repr_stats:smooth7"],
              run=lambda: spectral.fused_repr_stats(mono, n_fft_y, hop_y, "phase", taps=taps_y),
              plain=lambda: spectral.fused_repr_stats_reference(mono, n_fft_y, hop_y, "phase", taps=taps_y),
              library=lambda: lib_repr_stats(stft_y(w_y), "phase"),
              bound=bound_of(4.0 * B * L, fft_y + B * Ty * (n_fft_y + 41.0 * Fy)),
-             ceiling=ceiling_of(factored_y + 36.0 * el_y)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_y, B * Ty) + 36.0 * el_y), resources=repr_res["H seven"],
+             extra=dict(modelled_partials_bytes_ms=2.0 * 4 * hyp_blocks * 8 * Fy / PEAK_BYTES_PER_S * 1e3,
+                        blocks=hyp_blocks)),
+        dict(key="H_factored", name="fused_repr_stats_factored", source=spectral_src,
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:938", front_end="factored",
+             launches=counts["fused_repr_stats:factored"],
+             run=lambda: spectral.fused_repr_stats(mono, n11, hop11, "phase", taps=taps11),
+             plain=lambda: spectral.fused_repr_stats_reference(mono, n11, hop11, "phase", taps=taps11),
+             library=lambda: lib_repr_stats(stft11(w11), "phase"),
+             bound=bound_of(4.0 * B * L, fft11 + B * T11 * (n11 + 41.0 * F11)),
+             ceiling=ceiling_of(factored11 + 36.0 * el11)),
         dict(key="H_fk", name="fused_repr_stats_fullk", source=spectral_src + " (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/spectral.py:916", front_end="fft",
              launches=counts["fused_repr_stats_fullk:fft"],
@@ -7088,13 +7236,24 @@ def main() -> int:
              resources=repr_res["H"],
              extra=dict(modelled_partials_bytes_ms=2.0 * 4 * hks_blocks * 8 * Fp / PEAK_BYTES_PER_S * 1e3,
                         blocks=hks_blocks)),
-        dict(key="H_fk_product", name="fused_repr_stats_fullk_product", source=spectral_src,
-             replaces="acids_transforms_tpu/ops/pallas/spectral.py:916", front_end="product",
-             launches=counts["fused_repr_stats_fullk:product"],
+        dict(key="H_fk_smooth7", name="fused_repr_stats_fullk_smooth7",
+             source=spectral_src + " (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:916", front_end="smooth",
+             launches=counts["fused_repr_stats_fullk:smooth7"],
              run=lambda: spectral.fused_repr_stats(mono, n_fft_y, hop_y, "if", taps=None, window=w_yd),
              plain=lambda: spectral.fused_repr_stats_reference(mono, n_fft_y, hop_y, "if", taps=None, window=w_yd),
              library=lambda: lib_repr_stats(stft_y(w_yd), "if"), bound=bound_of(4.0 * B * L, hif_need_y),
-             ceiling=ceiling_of(fullk_y * (Ty + 1) / Ty + 44.0 * el_y)),
+             ceiling=ceiling_of(smooth_design_flops(n_fft_y, hys_blocks * (hys_tile + 2)) + 44.0 * el_y),
+             resources=repr_res["H seven"],
+             extra=dict(modelled_partials_bytes_ms=2.0 * 4 * hys_blocks * 8 * Fy / PEAK_BYTES_PER_S * 1e3,
+                        blocks=hys_blocks)),
+        dict(key="H_fk_product", name="fused_repr_stats_fullk_product", source=spectral_src,
+             replaces="acids_transforms_tpu/ops/pallas/spectral.py:916", front_end="product",
+             launches=counts["fused_repr_stats_fullk:product"],
+             run=lambda: spectral.fused_repr_stats(mono, n11, hop11, "if", taps=None, window=w11d),
+             plain=lambda: spectral.fused_repr_stats_reference(mono, n11, hop11, "if", taps=None, window=w11d),
+             library=lambda: lib_repr_stats(stft11(w11d), "if"), bound=bound_of(4.0 * B * L, hif_need11),
+             ceiling=ceiling_of(fullk11 * (T11 + 1) / T11 + 44.0 * el11)),
         dict(key="I", name="gl_project", front_end="fft",
              source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:236",
@@ -8098,7 +8257,8 @@ def main() -> int:
         log(f"  mixed-radix instance {name}: {res.get('registers')} registers, spill stores / loads "
             f"{res.get('spill_stores', 0)} / {res.get('spill_loads', 0)} B")
 
-    # G and H full-K on the smooth route under every plan (reported, not gated)
+    # G and H full-K on the smooth route and its radix-7 instance under every
+    # plan (reported, not gated)
     def opt_ms(v):
         return "-" if v is None else f"{v:.3f}"
 

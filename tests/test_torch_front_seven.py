@@ -7,11 +7,10 @@ take the shape, they run ``csrc/spectral.cu:melspec_forward_kernel`` /
 ``melspec_stats_kernel<., kFrontSmooth7>`` (``frames_rfft<true, true>``),
 whose plain versions are ``frames_rfft_reference(..., smooth=True)`` over the
 whole clip (the radices of ``frames_fft.fft_radices``, sevens first).  The
-route rule is ``spectral.melspec_route(n_fft, family)``: the ``"melspec"``
-family (E, F, A, B) takes the sevens, the ``"repr"`` family (G, H) keeps its
-product and factored front ends there.  1408 = 2^7 11 keeps the product and
-factored front ends for both; 4032/2016 has no plan on either route and
-raises.  ``chip_smoke.py`` holds the kernels to these plain versions on the
+route rule is ``spectral.melspec_route(n_fft)``, which G and H read too
+(their radix-7 instance: ``tests/test_torch_repr_seven.py``).  1408 = 2^7 11
+keeps the product and factored front ends; 4032/2016 has no plan on either
+route and raises.  ``chip_smoke.py`` holds the kernels to these plain versions on the
 card.
 
 Tolerances, and why:
@@ -92,22 +91,23 @@ def assert_stats(got, want, tol):
         assert abs(float(got[k]) - float(want[k])) <= tol * ext, k
 
 
-def test_route_rule_by_family_at_every_seven_shape():
-    """The 42 shapes of the gate: the melspec family takes the smooth route,
-    the repr family its product / factored front end; 1408/352 (2^7 11) is
-    neither family's smooth route, and the 5-smooth and power-of-two shapes
-    keep their routes in both."""
+def test_route_rule_at_every_seven_shape():
+    """The 42 shapes of the gate: E, F, A and B and G and H take the smooth
+    route (G and H keep their product / factored front end only where no
+    smooth block fits: G with the IF and a mel bank at 4032/2016); 1408/352
+    (2^7 11) is no smooth route, and the 5-smooth and power-of-two shapes
+    keep their routes."""
     shapes = seven_shapes()
     assert len(shapes) == 42 and (4032, 2016) in shapes and (224, 32) in shapes
-    for n_fft, _ in shapes:
-        assert pk.melspec_route(n_fft, "melspec") == "smooth"
-        assert pk.melspec_route(n_fft, "repr") == "other"
+    for n_fft, hop in shapes:
+        assert pk.melspec_route(n_fft) == "smooth"
         assert fft_radices(n_fft)[0] == 7
-    for fam in pk.MELSPEC_ROUTE_FAMILIES:
-        assert pk.melspec_route(1408, fam) == "other"
-        assert pk.melspec_route(768, fam) == "smooth" and pk.melspec_route(1024, fam) == "fft"
-    with pytest.raises(ValueError, match="family"):
-        pk.melspec_route(896, "session")
+        for taps in (None, TAPS["hann"]):
+            want = "other" if (n_fft, hop) == (4032, 2016) else "smooth"
+            assert pk._repr_route(n_fft, hop, taps, False, "if", True) == want
+            assert pk._repr_route(n_fft, hop, taps, True, "if", False) == "smooth"
+    assert pk.melspec_route(1408) == "other"
+    assert pk.melspec_route(768) == "smooth" and pk.melspec_route(1024) == "fft"
 
 
 def test_plans_fit_and_4032_2016_raises():
@@ -229,52 +229,51 @@ def test_a_b_are_e_f_under_the_taps_window(audio, n_fft, hop, wname):
 
 
 @pytest.mark.parametrize("second", sorted(pk.SECONDS))
-def test_g_h_keep_their_routes_at_896(audio, second):
-    """G and H have no radix-7 instance: at 896/224 their plain versions
-    still run the product front end (full-K) and the factored one (taps),
-    their plans have no FFT teams, and 5-smooth 768 keeps their smooth
-    route."""
-    n_fft, hop = 896, 224
+def test_g_h_take_the_sevens_at_896(audio, second):
+    """At 896/224 G's and H's plain versions run the smooth route's radix-7
+    schedule, full-K and under the taps' own window, and their plans have
+    FFT teams; at 1408/352 (2^7 11) they still run the product front end
+    (full-K) and the factored one (taps), with no FFT teams."""
     x = torch.as_tensor(audio)
-    w = gaussian_dgt_window(n_fft)
     taps = TAPS["hann"]
-    for stats in (False, True):
-        assert pk._repr_plan(n_fft, hop, None, stats, second, False)[1] == 0
-        assert pk._repr_plan(n_fft, hop, taps, stats, second, False)[1] == 0
-        assert pk._repr_plan(768, 192, taps, stats, second, False)[1] > 0
-    g = pk.fused_spectral_repr(x, n_fft, hop, "imag", window=w)
-    re, im = pk._fullk_spectrum(x, n_fft, hop, True, w)
-    assert torch.equal(g[0], re) and torch.equal(g[1], pk._pin_nyquist(im))
-    g_t = pk.fused_spectral_repr(x, n_fft, hop, "imag", taps=taps)
-    re_t, im_t = pk._factored_spectrum(x, n_fft, hop, True, taps)
-    assert torch.equal(g_t[0], re_t) and torch.equal(g_t[1], pk._pin_nyquist(im_t))
-    y = pk.fused_spectral_repr(x, n_fft, hop, second, window=w, contrast="none")
-    y_ref = pk.fused_spectral_repr_reference(x, n_fft, hop, second, window=w, contrast="none")
-    assert all(torch.equal(a, b) for a, b in zip(y, y_ref))
-    h = pk.fused_repr_stats(x, n_fft, hop, second, window=w)
-    c1, _ = pk._repr_channels(x, n_fft, hop, True, None, w, second, "log1p", None, False)
-    assert torch.equal(h["ch1"]["max"], c1.max())
+    for n_fft, hop, seven in ((896, 224, True), (1408, 352, False)):
+        w = gaussian_dgt_window(n_fft)
+        for stats in (False, True):
+            assert (pk._repr_plan(n_fft, hop, None, stats, second, False)[1] > 0) == seven
+            assert (pk._repr_plan(n_fft, hop, taps, stats, second, False)[1] > 0) == seven
+        g = pk.fused_spectral_repr(x, n_fft, hop, "imag", window=w)
+        re, im = pk._fullk_spectrum(x, n_fft, hop, True, w, smooth=seven)
+        assert torch.equal(g[0], re) and torch.equal(g[1], pk._pin_nyquist(im))
+        g_t = pk.fused_spectral_repr(x, n_fft, hop, "imag", taps=taps)
+        if seven:
+            re_t, im_t = pk._fullk_spectrum(x, n_fft, hop, True, torch.as_tensor(taps_window(taps, n_fft)),
+                                            smooth=True)
+        else:
+            re_t, im_t = pk._factored_spectrum(x, n_fft, hop, True, taps)
+        assert torch.equal(g_t[0], re_t) and torch.equal(g_t[1], pk._pin_nyquist(im_t))
+        y = pk.fused_spectral_repr(x, n_fft, hop, second, window=w, contrast="none")
+        y_ref = pk.fused_spectral_repr_reference(x, n_fft, hop, second, window=w, contrast="none")
+        assert all(torch.equal(a, b) for a, b in zip(y, y_ref))
+        h = pk.fused_repr_stats(x, n_fft, hop, second, window=w)
+        c1, _ = pk._repr_channels(x, n_fft, hop, True, None, w, second, "log1p", None, False)
+        assert torch.equal(h["ch1"]["max"], c1.max())
     assert not any(pk.launches.values())
 
 
-def test_regions_kernel_route_by_family():
-    """The region rule names each kernel's route by its family: the
-    magnitude kernels (A, B, E, F) smooth at 896, the representations (G, H)
-    factored with taps and product without; both families' factored /
-    product front end at 1408 and smooth at 768.  The sweep measures the
-    magnitude patterns' smooth route at 768 and 896 and their other route at
-    1408, the representations' at 768 and 896."""
-    assert regions.kernel_route(896, True, "melspec") == "smooth" == regions.kernel_route(896, False, "melspec")
-    assert regions.kernel_route(896, True, "repr") == "factored" and regions.kernel_route(896, False, "repr") == "product"
-    for fam in ("melspec", "repr"):
-        assert regions.kernel_route(1408, True, fam) == "factored"
-        assert regions.kernel_route(1408, False, fam) == "product"
-        assert regions.kernel_route(768, True, fam) == "smooth" and regions.kernel_route(1024, False, fam) == "fft"
+def test_regions_kernel_route_at_the_sevens():
+    """The region rule names one route for every kernel of the regions (A,
+    B, E, F, G, H): smooth at 896 and 768, factored with taps and product
+    without at 1408.  The sweep measures every pattern's smooth route at 768
+    and 896 and its other route at 1408."""
+    assert regions.kernel_route(896, True) == "smooth" == regions.kernel_route(896, False)
+    assert regions.kernel_route(1408, True) == "factored"
+    assert regions.kernel_route(1408, False) == "product"
+    assert regions.kernel_route(768, True) == "smooth" and regions.kernel_route(1024, False) == "fft"
     assert not fft_covers_smooth(896) and fft_covers_smooth7(896)
     from acids_transforms_tpu_torch.tools import sweep_regions as tool
 
+    assert tool.SEVEN_POINTS == {"smooth": ["768/192", "896/224"], "other": ["1408/352"]}
     for kind in tool.KINDS + tool.FIT_KINDS:
-        want = tool.SEVEN_POINTS if kind in tool.MAGNITUDE_KINDS else tool.SMOOTH_POINTS
-        assert tool.route_points(kind) is want
-    assert set(tool.MAGNITUDE_KINDS) == {"melspec_taps", "melspec_fullk", "mfcc", "fit_melspec_fullk"}
+        other = "factored" if kind.endswith("taps") or kind == "mfcc" else "product"
+        assert tool.route_note(kind) == "smooth: 768/192, 896/224; %s: 1408/352" % other
     assert (1408, 352) in tool.FIT_SHAPES and (1024, 512) not in tool.FIT_SHAPES

@@ -47,24 +47,25 @@ def test_table_loads_and_values_measured():
                                "pghi_gl": None, "random": None}
     assert all(regions.batch_cap(m) is None for m in s["batch_caps"])
     assert t["fuse_fit"]["fullk_n_fft_max"] == 4096 == regions.fit_fullk_max_n_fft()
-    # the magnitude's fit (F) won on the smooth route at 768/192 (0.21x) and
-    # on its radix-7 instance at 896/224 (0.21x), and lost on the product
-    # route at 1408/352 (1.60x); PolarIF's (H full-K) won on its smooth route
-    # at 768/192 (0.20x) and its product route at 896/224 (0.55x)
+    # the magnitude's fit (F) won on the smooth route at 768/192 (0.23x) and
+    # on its radix-7 instance at 896/224 (0.22x), and lost on the product
+    # route at 1408/352 (1.61x); PolarIF's (H full-K) won on its smooth route
+    # at 768/192 (0.17x), on its radix-7 instance at 896/224 (0.16x) and on
+    # its product route at 1408/352 (0.85x)
     assert t["fuse_fit"]["melspec_fullk_routes"] == ["fft", "smooth"]
     assert t["fuse_fit"]["repr_fullk_routes"] == ["fft", "smooth", "product"]
     ff = t["fuse_forward"]
     # (region, n_fft_min, routes): at 64/32 the kernel lost for the
-    # cosine-sum magnitude (1.05x) and Polar (1.12x, 1.11x); MFCC won there
-    # (0.98x, 1.05x three sweeps before: run noise near 1); the full-K
-    # magnitude's product route lost at 1408/352 (1.88x), the full-K Polar's
-    # at 896/224 (1.20x); every pattern's smooth route won at 768/192
-    # (0.15-0.24x), the magnitude patterns' radix-7 instance at 896/224
-    # (0.15-0.17x); the cosine-sum magnitude's and MFCC's factored route at
-    # 1408/352 (0.56x, 0.66x)
-    smooth, prod = ["fft", "smooth", "factored"], ["fft", "smooth", "product"]
+    # cosine-sum magnitude (1.05x) and Polar (1.11x, 1.10x); MFCC won there
+    # (0.95x, 0.98x and 1.05x sweeps before: run noise near 1); the full-K
+    # product route lost at 1408/352 for the magnitude (1.88x), PolarIF
+    # (1.24x) and Polar (1.56x); every pattern's smooth route won at 768/192
+    # (0.16-0.25x) and its radix-7 instance at 896/224 (0.15-0.23x); the
+    # factored route at 1408/352 for the cosine-sum magnitude, MFCC, PolarIF
+    # and Polar (0.55x, 0.66x, 0.50x, 0.59x)
+    smooth = ["fft", "smooth", "factored"]
     for r, lo, routes in ((ff["melspec_taps"], 128, smooth), (ff["melspec_fullk"], 64, ["fft", "smooth"]),
-                          (ff["repr_if"]["taps"], 64, smooth), (ff["repr_if"]["fullk"], 64, prod),
+                          (ff["repr_if"]["taps"], 64, smooth), (ff["repr_if"]["fullk"], 64, ["fft", "smooth"]),
                           (ff["repr_phase_imag"]["taps"], 128, smooth),
                           (ff["repr_phase_imag"]["fullk"], 128, ["fft", "smooth"]), (ff["mfcc"], 64, smooth)):
         assert set(r) == {"_why", "n_fft_min", "n_fft_max", "routes"}   # no overlap key
@@ -236,11 +237,14 @@ def test_fuse_region_helpers_match_table():
     assert regions.melspec_region_ok(1920, 480, False) and not regions.melspec_region_ok(1408, 352, False)
     assert regions.melspec_region_ok(896, 224, False) and regions.melspec_region_ok(896, 224, True)
     assert regions.melspec_region_ok(1408, 352, True)                            # A factored: 0.56x
-    # the representations: the smooth route won at 768 (0.23x), the full-K
-    # Polar's product route lost at 896 (1.20x), PolarIF's won (0.90x)
+    # the representations: the smooth route won at 768 (0.24-0.25x) and on its
+    # radix-7 instance at 896 (0.22-0.23x), the full-K product route lost at
+    # 1408 (PolarIF 1.24x, Polar 1.56x), the factored one won (0.50x, 0.59x)
     assert regions.repr_region_ok(768, 192, False, "if") and regions.repr_region_ok(896, 224, False, "if")
     assert regions.repr_region_ok(768, 192, False, "phase") and regions.repr_region_ok(768, 192, True, "phase")
-    assert regions.repr_region_ok(1920, 480, False, "phase") and not regions.repr_region_ok(896, 224, False, "phase")
+    assert regions.repr_region_ok(1920, 480, False, "phase") and regions.repr_region_ok(896, 224, False, "phase")
+    assert not regions.repr_region_ok(1408, 352, False, "phase") and not regions.repr_region_ok(1408, 352, False, "if")
+    assert regions.repr_region_ok(1408, 352, True, "phase") and regions.repr_region_ok(1408, 352, True, "if")
     assert regions.repr_region_ok(512, 128, True, "imag") and regions.repr_region_ok(4096, 1024, False, "imag")
     assert regions.mfcc_region_ok(1024, 256) and regions.mfcc_region_ok(768, 192) and regions.mfcc_region_ok(896, 224)
     assert regions.mfcc_region_ok(1408, 352)                                     # MFCC factored: 0.66x
@@ -250,6 +254,7 @@ def test_fuse_region_helpers_match_table():
     assert not regions.fit_fullk_region_ok(1408)
     assert not regions.fit_fullk_region_ok(8192)
     assert regions.fit_fullk_region_ok(768, two_channel=True) and regions.fit_fullk_region_ok(896, two_channel=True)
+    assert regions.fit_fullk_region_ok(1408, two_channel=True)                  # H full-K product: 0.85x
 
 
 def _fuse_chains(n_fft, hop):
@@ -271,10 +276,10 @@ def _fuse_chains(n_fft, hop):
 @pytest.mark.parametrize("n_fft,hop,expected", [
     (1024, 256, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_fullk", "phase_taps", "mfcc"}),
     (768, 192, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_fullk", "phase_taps", "mfcc"}),
-    (896, 224, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_taps", "mfcc"}),
-    # PolarIF full-K: its region's product point is 896/224 (0.90x); at
-    # 1408/352 the sweep read 1.24x, a shape its rule does not measure
-    (1408, 352, {"melspec_taps", "if_fullk", "phase_taps", "mfcc"}),
+    (896, 224, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_fullk", "phase_taps", "mfcc"}),
+    # the full-K product routes lost at 1408/352 (magnitude 1.88x, PolarIF
+    # 1.24x, Polar 1.56x), the factored ones won
+    (1408, 352, {"melspec_taps", "phase_taps", "mfcc"}),
     (2048, 256, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_fullk", "phase_taps", "mfcc"}),
     (128, 32, {"melspec_taps", "melspec_fullk", "if_fullk", "phase_fullk", "phase_taps", "mfcc"}),
     (64, 32, {"melspec_fullk", "if_fullk", "mfcc"}),      # MFCC 0.96x at 64/32 (1.05x in the sweep before)
@@ -379,41 +384,41 @@ def test_region_admits_a_route_only_where_a_point_of_it_won(monkeypatch):
 
 
 def test_repr_regions_read_their_own_768_point(monkeypatch):
-    """G and H take the smooth route at 768 as the log-mel kernels do: 768/192
-    measures it and 896/224 their factored / product front end (they have no
-    radix-7 instance), each route admitted only where its own point won; a
-    representation region reads its own sweep, never the log-mel region's."""
+    """G and H take the smooth route at 768 and, on their radix-7 instance,
+    at 896 as the log-mel kernels do: 768/192 and 896/224 measure it and
+    1408/352 their factored / product front end, each route admitted only
+    where its own points won; a representation region reads its own sweep,
+    never the log-mel region's."""
     from acids_transforms_tpu_torch.tools import sweep_regions as tool
 
     card = "NVIDIA H100 80GB HBM3, 700.00 W"
-    one = _sweep_rows(tool.SHAPES, s768=0.6, s896=1.4)
-    other = _sweep_rows(tool.SHAPES, s768=1.3, s896=0.7)
+    one = _sweep_rows(tool.SHAPES, s768=0.6, s896=0.7, s1408=1.4)
+    other = _sweep_rows(tool.SHAPES, s768=1.3, s896=1.2, s1408=0.7)
     assert tool.shape_region(one, card, "w", "repr_if_fullk")["routes"] == ["fft", "smooth"]
     assert tool.shape_region(other, card, "w", "repr_if_fullk")["routes"] == ["fft", "product"]
     assert tool.shape_region(other, card, "w", "repr_phase_taps")["routes"] == ["fft", "factored"]
-    assert regions.kernel_route(896, True, "repr") == "factored"
-    assert regions.kernel_route(896, False, "repr") == "product"
-    assert regions.kernel_route(768, False, "repr") == "smooth" and regions.kernel_route(768, True, "repr") == "smooth"
+    assert regions.kernel_route(896, True) == "smooth" == regions.kernel_route(896, False)
+    assert regions.kernel_route(1408, True) == "factored" and regions.kernel_route(1408, False) == "product"
+    assert regions.kernel_route(768, False) == "smooth" and regions.kernel_route(768, True) == "smooth"
     mag = _sweep_rows(tool.SHAPES, s768=0.6, s896=0.6, s1408=1.4)
     _with_table(monkeypatch, fuse_forward={
         "melspec_fullk": tool.shape_region(mag, card, "w", "melspec_fullk"),
         "repr_if": {"taps": tool.shape_region(other, card, "w", "repr_if_taps"),
                     "fullk": tool.shape_region(other, card, "w", "repr_if_fullk")}})
-    assert regions.melspec_region_ok(768, 256, False)
+    assert regions.melspec_region_ok(768, 256, False) and regions.melspec_region_ok(896, 224, False)
     assert not regions.repr_region_ok(768, 256, False, "if") and regions.repr_region_ok(1024, 256, False, "if")
-    assert not regions.repr_region_ok(768, 192, True, "if") and regions.repr_region_ok(896, 224, True, "if")
+    assert not regions.repr_region_ok(896, 224, True, "if") and regions.repr_region_ok(1408, 352, True, "if")
 
 
 def test_fit_region_follows_the_route_rule(monkeypatch):
     """The full-K fit admits a route per family by the same rule, each from
     its own points: F (the magnitude) the smooth route where its 768 and 896
-    points won and the product route where its 1408 point did, H full-K the
-    smooth route where its own 768 point won and the product route where its
-    896 point did (here the other way round)."""
+    points won and the product route where its 1408 point did, H full-K
+    likewise from its own points (here the other way round)."""
     from acids_transforms_tpu_torch.tools import sweep_regions as tool
 
     fit = {"fit_melspec_fullk": _sweep_rows(tool.FIT_SHAPES, s768=0.6, s896=0.7, s1408=1.4),
-           "fit_repr_if_fullk": _sweep_rows(tool.FIT_SHAPES, s768=1.2, s896=0.6)}
+           "fit_repr_if_fullk": _sweep_rows(tool.FIT_SHAPES, s768=1.2, s896=1.1, s1408=0.6)}
     sec = tool.fit_section(fit, "NVIDIA H100 80GB HBM3, 700.00 W")
     assert sec["fullk_n_fft_max"] == 4096
     assert sec["melspec_fullk_routes"] == ["fft", "smooth"] and sec["repr_fullk_routes"] == ["fft", "product"]
@@ -421,8 +426,8 @@ def test_fit_region_follows_the_route_rule(monkeypatch):
     assert regions.fit_fullk_region_ok(768) and regions.fit_fullk_region_ok(1920)
     assert regions.fit_fullk_region_ok(896) and not regions.fit_fullk_region_ok(1408)
     assert not regions.fit_fullk_region_ok(8192)
-    assert not regions.fit_fullk_region_ok(768, two_channel=True)
-    assert regions.fit_fullk_region_ok(1024, two_channel=True) and regions.fit_fullk_region_ok(896, two_channel=True)
+    assert not regions.fit_fullk_region_ok(768, two_channel=True) and not regions.fit_fullk_region_ok(896, True)
+    assert regions.fit_fullk_region_ok(1024, two_channel=True) and regions.fit_fullk_region_ok(1408, two_channel=True)
     dgt = PT.DGT(n_fft=768, hop_length=192, device="cpu")
     assert fuse._fit_region(dgt) and not fuse._fit_region(dgt, two_channel=True)
     assert fuse._fit_region(PT.STFT(n_fft=896, hop_length=224, device="cpu"), two_channel=True)

@@ -9,8 +9,9 @@ window and with cosine-sum taps under the taps' own window
 ``frames_rfft_reference(..., smooth=True)`` over the whole clip, frames paired
 ``(2j, 2j + 1)``; a block with the IF starts two frames before its tile (the
 halo frame and its FFT partner), so that it pairs its frames as the whole
-clip does.  896 = 2^7 7 keeps the product (full-K) and factored (taps) front
-ends, a power of two the FFT route.  ``chip_smoke.py`` holds the kernels to
+clip does.  1408 = 2^7 11 keeps the product (full-K) and factored (taps)
+front ends, a power of two the FFT route (896 = 2^7 7 takes the radix-7
+instance: ``tests/test_torch_repr_seven.py``).  ``chip_smoke.py`` holds the kernels to
 these plain versions on the card.
 
 Tolerances, and why:
@@ -92,7 +93,7 @@ def oracle_angle(S, second, weighted):
 def check_vs_jax(x, n_fft, hop, second, weighted, taps):
     """G's channels (no mel, no affine) and H's statistics of the plain
     smooth versions against the JAX kernels: one JAX call of each."""
-    assert pk.melspec_route(n_fft, "repr") == "smooth"
+    assert pk.melspec_route(n_fft) == "smooth"
     for stats in (False, True):
         assert pk._repr_plan(n_fft, hop, taps, stats, second, False)[1] > 0
     w = window_of(n_fft, taps)
@@ -223,7 +224,7 @@ def test_halo_pairs_frames_as_the_whole_clip(audio, tile_t):
 def test_route_rule_and_plans():
     """G and H take the smooth route, full-K and with taps, at every even
     5-smooth shape the gate takes (64-4096, overlap 2-8, hop a multiple of
-    32), every plan within shared memory; 896/224 keeps the factored and
+    32), every plan within shared memory; 1408/352 keeps the factored and
     product front ends, 1024 the FFT route; no launch is counted on a CPU
     tensor."""
     n_shapes = 0
@@ -247,11 +248,11 @@ def test_route_rule_and_plans():
     for stats in (False, True):
         for second in pk.SECONDS:
             mel = not stats and second != "imag"
-            assert pk._repr_plan(896, 224, HANN, stats, second, mel) == (pk._pick_repr_tile(224, 4, 449), 0)
-            assert pk._repr_plan(896, 224, None, stats, second, mel) == (pk._pick_repr_tile(224, 4, 449), 0)
+            assert pk._repr_plan(1408, 352, HANN, stats, second, mel) == (pk._pick_repr_tile(352, 4, 705), 0)
+            assert pk._repr_plan(1408, 352, None, stats, second, mel) == (pk._pick_repr_tile(352, 4, 705), 0)
             assert pk._repr_plan(1024, 256, None, stats, second, mel) == pk._pick_repr_fft_plan(
                 1024, 256, stats, second, mel)
-    assert pk.melspec_route(896, "repr") == "other" and pk.melspec_route(1024, "repr") == "fft"
+    assert pk.melspec_route(1408) == "other" and pk.melspec_route(1024) == "fft"
     pk.reset_launches()
     x = torch.as_tensor(make_audio(126, batch=2, n=3000)[:, 0])
     w = torch.as_tensor(window_of(768, None))
@@ -265,17 +266,19 @@ def test_route_rule_and_plans():
 
 
 def test_region_rule_reads_the_smooth_point(monkeypatch):
-    """The representations' regions read 768/192 as their smooth route's
-    point, as the log-mel regions do: a sweep where 768 wins and 896 loses
-    admits the smooth route and refuses the product / factored one."""
-    assert regions.kernel_route(768, True, "repr") == "smooth" and regions.kernel_route(768, False, "repr") == "smooth"
-    assert regions.kernel_route(896, True, "repr") == "factored"
-    assert regions.kernel_route(896, False, "repr") == "product"
-    for kind in ("repr_if_fullk", "repr_if_taps", "repr_phase_fullk", "repr_phase_taps", "fit_repr_if_fullk"):
-        assert tool.route_points(kind) is tool.SMOOTH_POINTS
-    win768 = _sweep_rows(tool.SHAPES, s768=0.6, s896=1.4)
+    """The representations' regions read 768/192 as a point of their smooth
+    route, as the log-mel regions do: a sweep where 768 and 896 win and 1408
+    loses admits the smooth route and refuses the product / factored one."""
+    assert regions.kernel_route(768, True) == "smooth" and regions.kernel_route(768, False) == "smooth"
+    assert regions.kernel_route(1408, True) == "factored"
+    assert regions.kernel_route(1408, False) == "product"
+    for kind in ("repr_if_fullk", "repr_phase_fullk", "fit_repr_if_fullk"):
+        assert tool.route_note(kind) == "smooth: 768/192, 896/224; product: 1408/352"
+    for kind in ("repr_if_taps", "repr_phase_taps"):
+        assert tool.route_note(kind) == "smooth: 768/192, 896/224; factored: 1408/352"
+    win768 = _sweep_rows(tool.SHAPES, s768=0.6, s896=0.7, s1408=1.4)
     r = {k: tool.shape_region(win768, CARD, "w", k) for k in ("repr_if_fullk", "repr_phase_taps")}
     assert r["repr_if_fullk"]["routes"] == ["fft", "smooth"] and r["repr_phase_taps"]["routes"] == ["fft", "smooth"]
     _with_table(monkeypatch, fuse_forward={"repr_if": {"taps": r["repr_phase_taps"], "fullk": r["repr_if_fullk"]}})
     assert regions.repr_region_ok(768, 256, False, "if") and regions.repr_region_ok(768, 192, True, "if")
-    assert not regions.repr_region_ok(896, 224, False, "if") and not regions.repr_region_ok(896, 224, True, "if")
+    assert not regions.repr_region_ok(1408, 352, False, "if") and not regions.repr_region_ok(1408, 352, True, "if")
