@@ -47,16 +47,18 @@
 // radix-7 stage as well (template argument kSeven = true) where
 // fft_covers_smooth7() takes n_fft and n_fft has a factor 7 (even, 2^a 3^b 5^c
 // 7^d: 896, 1344, 1680, 1764, ...), in R, the magnitude encode of N, L, M,
-// the decodes P, S and O's projection synthesis, E and F (so A and B), the
-// full-K Griffin-Lim step J, K's synthesis, O's polish and O's two-launch
-// analysis (session_encode_kernel<., true, true, true>,
+// the decodes P, S and O's projection synthesis, E and F (so A and B), G and
+// H (full-K and under the taps' window), the Griffin-Lim steps J, C, D and I,
+// K's synthesis, O's polish and O's two-launch analysis
+// (session_encode_kernel<., true, true, true>,
 // session_roundtrip_fft_kernel<., true, true>, session_decode_fft_kernel<.,
-// true, true>, spectral.cu:block_magnitudes<., kFrontSmooth7>,
-// glstep_fullk.cu:gl_fullk_fft_kernel<true, true>,
-// pghi.cu:pghi_synthesize_fft_kernel<true, true>, stream_step.cu:
-// gl_polish_fft_kernel<., true, true>, gl_project_analysis_fft_kernel<true,
-// true>); every other kernel (G, H, C, D, I) keeps its product or factored
-// route at those sizes.
+// true, true>, spectral.cu:block_magnitudes<., kFrontSmooth7>, spectral.cu:
+// repr_forward_kernel / repr_stats_kernel<., kFrontSmooth7>,
+// glstep_fullk.cu:gl_fullk_fft_kernel<true, true>, glstep.cu:
+// gl_step_fft_kernel<true, true>, pghi.cu:pghi_synthesize_fft_kernel<true,
+// true>, stream_step.cu: gl_polish_fft_kernel<., true, true>,
+// gl_project_analysis_fft_kernel<true, true>), each where its block fits;
+// every other n_fft (1408, 8192, ...) keeps the product or factored routes.
 //
 // What they compute.  frames_rfft: X_r[k] = sum_n w[n] xs[r hop + n] e^{-2 pi
 // i n k / n} for k <= n / 2 of every frame r < n_frames of a sample buffer
@@ -153,8 +155,9 @@
 //   stage has b - q = 0 for every butterfly, so it turns nothing and writes
 //   where it reads.  1200 = 5 5 3 4 4: five trips; 1344 = 7 3 4 4 4.
 // * the radix-7 stage is compiled only into the instances that take a
-//   factor 7 (kSeven: R's, L's, the decode's, E's, F's, J's, K's
-//   synthesis's, O's polish's and O's analysis's): fft_passes_smooth<false> holds no
+//   factor 7 (kSeven: R's, L's, the decode's, E's, F's, G's, H's, J's, C's
+//   (so D's and I's), K's synthesis's, O's polish's and O's analysis's):
+//   fft_passes_smooth<false> holds no
 //   radix-7 loop and fft_smooth_plan<false> no count of sevens, so every
 //   other mixed-radix instance compiles as it did before the stage existed.
 //   Its butterfly (fft_dft<7>, the symmetric form of frames_fft._dft7) holds
@@ -232,16 +235,8 @@ constexpr float kR7S1 = 0x1.904c38p-1f;
 constexpr float kR7S2 = 0x1.f329c0p-1f;
 constexpr float kR7S3 = 0x1.bc4c04p-2f;
 
-__host__ __device__ inline bool fft_covers_smooth(int n) {
-    if (n < kFftMin || n > kFftMax || (n & 1) || (n & (n - 1)) == 0) return false;
-    while (n % 2 == 0) n /= 2;
-    while (n % 3 == 0) n /= 3;
-    while (n % 5 == 0) n /= 5;
-    return n == 1;
-}
-
-// fft_covers_smooth and the sizes with a factor 7 (frames_fft.fft_covers_smooth7):
-// the route of R, the magnitude encode, L, M, the decodes, E and F
+// even, 2^a 3^b 5^c 7^d, 64 to 4096, no power of two (frames_fft.fft_covers_smooth7):
+// the route of every kernel with a mixed-radix instance
 __host__ __device__ inline bool fft_covers_smooth7(int n) {
     if (n < kFftMin || n > kFftMax || (n & 1) || (n & (n - 1)) == 0) return false;
     while (n % 2 == 0) n /= 2;
@@ -254,8 +249,8 @@ __host__ __device__ inline bool fft_covers_smooth7(int n) {
 // sevens, fives, threes, fours, then a two (frames_fft.fft_radices).
 // kSeven defaults to false here and in every template below: an instance
 // counts sevens only where it says so.  fft_smooth_plan<false> takes n with
-// no factor 7 (fft_covers_smooth(n): the entries of every instance without
-// the radix-7 stage admit no other n); the layout's size,
+// no factor 7 (frames_fft.fft_covers_smooth(n): the entries of every instance
+// without the radix-7 stage admit no other n); the layout's size,
 // fft_smooth_smem_floats, counts them for every n.
 struct FftPlan {
     int n7, n5, n3, n4, n2;

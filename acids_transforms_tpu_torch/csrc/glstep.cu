@@ -10,6 +10,9 @@
 //   gl_step_fft_kernel<true>    <- the same three where n_fft is even,
 //                                  2^a 3^b 5^c, 64 to 4096, no power of two
 //                                  (the smooth route, below)
+//   gl_step_fft_kernel<true, true> <- the same three where n_fft is even,
+//                                  2^a 3^b 5^c 7^d with a factor 7, 64 to
+//                                  4096 (the smooth route's radix-7 instance)
 //
 // One iteration: Y = taps_conv(mag * angles); D[c] = sum_j conj(tw_j) Y[c - j];
 // samples[c] = [Dre | Dim] @ [ICT; IST] / envelope[c]; C = samples @ [cos | -sin];
@@ -55,8 +58,10 @@
 // glstep.gl_step_route): the FFT route (gl_step_fft_kernel<false>) where
 // n_fft is a power of two from 64 to 4096, the smooth route
 // (gl_step_fft_kernel<true>) where fft_covers_smooth(n_fft) (768, 1200, 640,
-// 1920, ...) and its block fits, the chunk products above (gl_step_kernel)
-// for every other n_fft (896, 8192, ...).  The FFT route:
+// 1920, ...), or its radix-7 instance (gl_step_fft_kernel<true, true>) where
+// fft_covers_smooth7(n_fft) and n_fft has a factor 7 (896, 1344, 1568, ...),
+// and its block fits, the chunk products above (gl_step_kernel) for every
+// other n_fft (1408, 8192, ...).  The FFT route:
 // * the same function, with the window in the time domain: frames_irfft of
 //   mag * angles under window / n_fft (fft_smem.cuh), then the overlap-add
 //   in class order, the envelope division, the in-place re-framing of the
@@ -89,8 +94,12 @@
 // place between two buffer halves, teams of a power of two of threads),
 // its twiddles j < fft_smooth_table(n), and wsyn = window / n_fft rounded
 // once from float64 (frames_fft.irfft_window(smooth=True)); the pairing, the
-// leak, the envelope and the update are the FFT route's.  Plain version
-// _project_fft(..., smooth=True).
+// leak, the envelope and the update are the FFT route's.  Its radix-7
+// instance (kSeven) tells carve_fft, fft_stage, frames_irfft and frames_rfft
+// so: a radix-7 stage first, the table fft_smooth_table<true>(n) long (the
+// layout, fft_smooth_smem_floats, counts sevens for every n, so the offsets
+// below are the same for both instances).  Plain version _project_fft(...,
+// smooth=True).
 #include <math.h>
 
 #include "dft_common.cuh"
@@ -456,22 +465,23 @@ __device__ void gl_grid_sync(unsigned int* bar) {
 }
 
 // C, D and I on the FFT route (kSmooth = false) or the smooth route (kSmooth:
-// the mixed-radix stages; see the note at the top).  Iteration it reads the
+// the mixed-radix stages; with kSeven the radix-7 stage too; see the note at
+// the top).  Iteration it reads the
 // inputs (it = 0) or iteration it - 1's state and writes the outputs when
 // chain - 1 - it is even, the scratch set otherwise; state written during the
 // launch is read with __ldcg (L2), never through L1 or the read-only path.
-template <bool kSmooth>
+template <bool kSmooth, bool kSeven = false>
 __global__ void __launch_bounds__(kThreads, 2) gl_step_fft_kernel(GlFftArgs a) {
     extern __shared__ __align__(16) float smem[];
     const int T = a.T, F = a.F, hop = a.hop, ov = a.overlap;
     const int n = ov * hop;
     const int R = a.tile_t + ov - 1;  // chunks of samples a tile holds
     float* samples = smem;            // [R][hop]
-    const FftSmem fs = carve_fft<kSmooth>(samples + (size_t)R * hop, n);
+    const FftSmem fs = carve_fft<kSmooth, kSeven>(samples + (size_t)R * hop, n);
     float* wsyn = fs.buf + (size_t)a.teams * fft_buf_floats_of<kSmooth>(n);
     float* leak = wsyn + n;
     float* lam = leak + n;            // [tile_t + 2 overlap]
-    fft_stage<kSmooth>(a.win, a.fft_tw, fs, n);
+    fft_stage<kSmooth, kSeven>(a.win, a.fft_tw, fs, n);
     for (int i = threadIdx.x; i < n; i += kThreads) {
         wsyn[i] = __ldg(a.wsyn + i);
         leak[i] = __ldg(a.leak + i);
@@ -502,7 +512,7 @@ __global__ void __launch_bounds__(kThreads, 2) gl_step_fft_kernel(GlFftArgs a) {
                 lam[r] = f >= 0 ? __fmul_rn(__ldg(a.mag + o), __ldcg(s_aim + o)) : 0.0f;
             }
             // frames_irfft starts with a barrier and ends with one
-            frames_irfft<kSmooth>(
+            frames_irfft<kSmooth, kSeven>(
                 n_fr, ov, n, fs, wsyn, a.teams,
                 [&](int r, int k, float& re, float& im) {
                     const int f = f0 + r;
@@ -529,7 +539,7 @@ __global__ void __launch_bounds__(kThreads, 2) gl_step_fft_kernel(GlFftArgs a) {
                 if (c < T + ov - 1) samples[i] = __fdiv_rn(samples[i], __ldg(a.env + (size_t)c * hop + (i - q * hop)));
             }
             // frames_rfft starts with a barrier and ends with one
-            frames_rfft<kSmooth>(samples, min(a.tile_t, T - t0), hop, n, fs, a.teams,
+            frames_rfft<kSmooth, kSeven>(samples, min(a.tile_t, T - t0), hop, n, fs, a.teams,
                         [&](int r, int k, float r_re, float r_im) {
                             const size_t o = bofs + (size_t)(t0 + r) * F + k;
                             d_rre[o] = r_re;
@@ -554,21 +564,22 @@ __global__ void __launch_bounds__(kThreads, 2) gl_step_fft_kernel(GlFftArgs a) {
 // cooperative launch of at most the blocks the card holds at once, sized by
 // this instance's own occupancy (the grid barrier needs every block
 // resident).
-template <bool kSmooth>
+template <bool kSmooth, bool kSeven = false>
 static cudaError_t gl_fft_launch(GlFftArgs a, size_t smem, cudaStream_t s) {
-    const void* fn = (const void*)gl_step_fft_kernel<kSmooth>;
-    cudaError_t err = cudaFuncSetAttribute(gl_step_fft_kernel<kSmooth>,
+    const void* fn = (const void*)gl_step_fft_kernel<kSmooth, kSeven>;
+    cudaError_t err = cudaFuncSetAttribute(gl_step_fft_kernel<kSmooth, kSeven>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const long long n_work = a.B * a.n_tiles;
     if (a.chain == 1) {
-        gl_step_fft_kernel<kSmooth><<<(unsigned)n_work, kThreads, smem, s>>>(a);
+        gl_step_fft_kernel<kSmooth, kSeven><<<(unsigned)n_work, kThreads, smem, s>>>(a);
         return cudaGetLastError();
     }
     int dev = 0, sms = 0, per_sm = 0;
     if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
     if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gl_step_fft_kernel<kSmooth>, kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gl_step_fft_kernel<kSmooth, kSeven>, kThreads,
+                                                        smem);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     const long long resident = (long long)per_sm * sms;
@@ -654,10 +665,11 @@ long long att_gl_fft_smem_bytes(int tile_t, int overlap, int hop, int teams) {
 }
 
 // Kernels C (chain 1), D (chain >= 2) and I (project = 1, chain 1) on the FFT
-// route, or on the smooth route where fft_covers_smooth(n_fft).  Spectrogram
+// route, or on the smooth route where fft_covers_smooth7(n_fft) (the radix-7
+// instance where n_fft has a factor 7).  Spectrogram
 // arrays (B, T, F) float32 contiguous, outputs not aliasing inputs; env (T +
 // overlap - 1, hop); n_fft = overlap hop a power of two from 64 to 4096 (1 <=
-// teams <= 4096 / n_fft) or even, 2^a 3^b 5^c, 64 to 4096 (1 <= teams <=
+// teams <= 4096 / n_fft) or even, 2^a 3^b 5^c 7^d, 64 to 4096 (1 <= teams <=
 // fft_smooth_max_teams(n_fft)), F = n_fft / 2 + 1; window, wsyn and leak
 // (n_fft,) (the window, the window / n_fft (frames_fft.irfft_window; on the
 // smooth route rounded once from float64), -(2 / n_fft) sum_{p >= 1} taps[p]
@@ -675,8 +687,9 @@ int att_gl_step_fft(const float* mag, const float* are, const float* aim, const 
     using namespace att;
     const int n_fft = overlap * hop;
     const bool smooth = !fft_covers(n_fft);
+    const bool seven = smooth && n_fft % 7 == 0;
     const int max_teams = smooth ? fft_smooth_max_teams(n_fft) : fft_max_teams(n_fft);
-    if (B < 1 || T < 1 || overlap < 2 || (smooth && !fft_covers_smooth(n_fft)) || F != n_fft / 2 + 1 ||
+    if (B < 1 || T < 1 || overlap < 2 || (smooth && !fft_covers_smooth7(n_fft)) || F != n_fft / 2 + 1 ||
         teams < 1 || teams > max_teams || tile_t < 1 || tile_t % (2 * overlap) != 0 || chain < 1 ||
         (chain >= 2 && (scratch == nullptr || barrier == nullptr)) || (project && chain != 1)) {
         return (int)cudaErrorInvalidValue;
@@ -690,6 +703,7 @@ int att_gl_step_fft(const float* mag, const float* are, const float* aim, const 
     a.mom = mom;
     const size_t smem = gl_fft_smem_floats(tile_t, overlap, hop, teams) * sizeof(float);
     cudaStream_t s = (cudaStream_t)stream;
+    if (seven) return (int)gl_fft_launch<true, true>(a, smem, s);
     return (int)(smooth ? gl_fft_launch<true>(a, smem, s) : gl_fft_launch<false>(a, smem, s));
 }
 

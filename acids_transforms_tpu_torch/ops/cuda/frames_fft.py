@@ -20,16 +20,13 @@ H, full-K and under the taps' window), the Griffin-Lim steps (J, C, D, I),
 K's synthesis and O's polish also take the mixed-radix schedule wherever
 :func:`fft_covers_smooth` takes ``n_fft`` (even, ``2^a 3^b 5^c``, 64 to 4096,
 not a power of two: 1200, 960, 768, 400, 1920, ...; the Griffin-Lim steps,
-K's synthesis and the polish where their block fits too); R, N's encode, L,
-M, the streaming decodes (P, S, O's projection synthesis), O's polish and
-two-launch analysis, the full-K melspec forward and fit (E, F, and so A and
-B), the full-K Griffin-Lim step J and K's synthesis also where
-:func:`fft_covers_smooth7` does (a factor 7 as well: 896, 1344, 1680, 1764,
-...; L, M, J, K's synthesis and the polish where their block fits, E and F
-where a tile does: not at 4032/2016), with a radix-7 stage; every other
-``n_fft`` keeps the window-folded products of ``dft_common.cuh`` and
-``synth_ola.cuh`` (and A, B, G and H their factored front end; O's polish
-the two-launch projection, its analysis a product).
+K's synthesis and the polish where their block fits too); every one of them
+also where :func:`fft_covers_smooth7` does (a factor 7 as well: 896, 1344,
+1680, 1764, ...; L, M, G, H, J, C, D, I, K's synthesis and the polish where
+their block fits, E and F where a tile does: not at 4032/2016), with a
+radix-7 stage; every other ``n_fft`` keeps the window-folded products of
+``dft_common.cuh`` and ``synth_ola.cuh`` (and A, B, G and H their factored
+front end; O's polish the two-launch projection, its analysis a product).
 
 The schedule, which :func:`frames_rfft_reference` and
 :func:`frames_irfft_reference` repeat step for step:
@@ -96,12 +93,9 @@ def fft_covers(n_fft: int) -> bool:
     """Whether the FFT route takes ``n_fft``: a power of two from 64 to 4096.
     Elsewhere R, L, M, the decodes, E and F (with A and B), G and H, J, C, D,
     I, K's synthesis and O's polish and analysis take the smooth route where
-    :func:`fft_covers_smooth` does (R, N's encode, L, M, the decodes P, S
-    and O's projection synthesis, O's polish and analysis, E and F with A
-    and B, G and H, J and K's synthesis where :func:`fft_covers_smooth7`
-    does), and the products (A, B, G and H the factored front end, O's
-    polish the two-launch projection, its analysis a product) at every other
-    ``n_fft``."""
+    :func:`fft_covers_smooth7` does, and the products (A, B, G and H the
+    factored front end, O's polish the two-launch projection, its analysis a
+    product) at every other ``n_fft``."""
     n = int(n_fft)
     return FFT_MIN <= n <= FFT_MAX and n & (n - 1) == 0
 
@@ -122,16 +116,17 @@ def fft_covers_smooth7(n_fft: int) -> bool:
     """Whether the mixed-radix route with its radix-7 stage takes ``n_fft``:
     even, ``2^a 3^b 5^c 7^d`` (``a >= 1``), from 64 to 4096, and not a power
     of two; every size :func:`fft_covers_smooth` takes, and those with a
-    factor 7 (896, 1344, 1680, 1764, ...).  R, the magnitude encode, L, M
-    (L and M where their block fits), the streaming decodes P, S and O's
-    projection synthesis, O's polish and two-launch analysis, the full-K
-    melspec forward and fit E and F (so A and B under the taps' own window)
-    and the representation forward and fit G and H
-    (``spectral.melspec_route``; G and H where their block fits), the
-    full-K Griffin-Lim step J (``glstep._fullk_plan``) and K's synthesis
-    (``pghi_kernel.synth_route``) take it, J and K's synthesis where their
-    block fits; the Griffin-Lim steps C, D and I keep
-    :func:`fft_covers_smooth`."""
+    factor 7 (896, 1344, 1680, 1764, ...).  Every kernel with a mixed-radix
+    instance takes it: R, the magnitude encode, L, M (L and M where their
+    block fits), the streaming decodes P, S and O's projection synthesis,
+    O's polish and two-launch analysis, the full-K melspec forward and fit E
+    and F (so A and B under the taps' own window) and the representation
+    forward and fit G and H (``spectral.melspec_route``; G and H where their
+    block fits), the Griffin-Lim steps J, C, D and I
+    (``glstep._fft_plan``) and K's synthesis
+    (``pghi_kernel.synth_route``), the Griffin-Lim steps and K's synthesis
+    where their block fits.  Only the session roundtrip's per-hop check
+    (``stream_step.session_route``) still reads :func:`fft_covers_smooth`."""
     return _smooth(n_fft, (2, 3, 5, 7))
 
 

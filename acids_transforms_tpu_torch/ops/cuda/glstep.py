@@ -39,10 +39,12 @@ momentum update).  Three routes, chosen by ``(n_fft, hop)`` alone
 re-framing, ``frames_rfft`` under the window; a chain is one cooperative
 launch with a barrier across the grid between iterations), with the window
 in the time domain, so the edge samples lose the amplified rounding
-described above; where ``frames_fft.fft_covers_smooth(n_fft)`` (even, ``2^a
-3^b 5^c``, no power of two: 768, 1200, 640, ...) and its block fits, the
-same kernel on the mixed-radix FFT (``gl_step_fft_kernel<true>``, the smooth
-route); elsewhere the chunk products.  The window of the
+described above; where ``frames_fft.fft_covers_smooth7(n_fft)`` (even, ``2^a
+3^b 5^c 7^d``, no power of two: 768, 1200, 640, 896, 1344, ...) and its block
+fits, the same kernel on the mixed-radix FFT (``gl_step_fft_kernel<true>``,
+the smooth route; its radix-7 instance ``gl_step_fft_kernel<true, true>``
+where ``n_fft`` has a factor 7); elsewhere (1408 = 2^7 11, 8192, ...) the
+chunk products.  The window of the
 FFT route is the taps' own (:func:`taps_window`), so both routes compute one
 function of the taps.  The taps conv reads the imaginary part of bin 0, which
 an inverse real FFT does not: the FFT route adds it back unwindowed to every
@@ -60,8 +62,8 @@ shared-memory FFT both ways (``csrc/fft_smem.cuh``: ``frames_irfft``, then
 same on the mixed-radix FFT (the smooth route; its radix-7 instance where
 ``n_fft`` has a factor 7: 896, 1344, 1568, ...), elsewhere (1408 = 2^7 11,
 8192, ...) full-length inverse and forward DFT bases with the window folded
-in.  C, D and I have no radix-7 instance: :func:`gl_step_route` keeps
-``fft_covers_smooth``, so they keep the chunk products at 896.  J's
+in.  Both steps ask one coverage question (:func:`_fft_plan`), each
+with its own block and registers.  J's
 boundary rule is the eager loop's, not the one above: the overlap-add
 signal (envelope floored at ``eps^2``) is trimmed to the centre and
 reflect-padded again before it is re-framed, so every frame equals one
@@ -95,7 +97,6 @@ from .frames_fft import (
     class_plan,
     class_plan_smooth,
     fft_covers,
-    fft_covers_smooth,
     fft_covers_smooth7,
     fft_area_floats,
     fft_twiddles,
@@ -208,43 +209,65 @@ def _fft_smem_bytes(tile_t: int, overlap: int, hop: int, teams: int) -> int:
     return 4 * ((tile_t + overlap - 1) * hop + fft_area_floats(n, teams) + 2 * n + tile_t + 2 * overlap)
 
 
+#: blocks an SM the radix-7 instance of C, D and I
+#: (``gl_step_fft_kernel<true, true>``) runs at the registers its build
+#: takes: 256 threads, 65536 registers an SM
+STEP_SEVEN_BLOCKS = 3
+
+
+def _fft_plan(n_fft: int, hop: int, smem: Callable[[int, int], int],
+              seven_blocks: int) -> Optional[Tuple[int, int]]:
+    """The coverage question C, D, I and J share: ``(tile_t, teams)`` of the
+    FFT route's block where ``fft_covers(n_fft)`` (``frames_fft.class_plan``)
+    or the smooth route's where ``fft_covers_smooth7(n_fft)``
+    (``class_plan_smooth`` with up to four blocks an SM, the 5-smooth
+    instances' 64 registers, or ``seven_blocks`` where ``n_fft`` has a factor
+    7: what the radix-7 instance's registers allow), each scored with the
+    analysis's ``tile_t / 2`` pairs and ``smem(tile_t, teams)`` bytes a
+    block; None where neither route takes ``n_fft`` or no block fits.
+    ``tile_t`` is a multiple of ``2 overlap``: the synthesis's pair groups
+    start at the block's first frame, the analysis's pairs ``(2j, 2j + 1)``
+    at an even one."""
+    def pairs(t):
+        return t // 2
+
+    if fft_covers(n_fft):
+        return class_plan(n_fft, hop, smem, analysis_pairs=pairs)
+    if fft_covers_smooth7(n_fft):
+        blocks = seven_blocks if n_fft % 7 == 0 else 4
+        return class_plan_smooth(n_fft, hop, smem, blocks=blocks, analysis_pairs=pairs)
+    return None
+
+
 @functools.lru_cache(maxsize=None)
 def _step_fft_plan(n_fft: int, hop: int) -> Optional[Tuple[int, int]]:
-    """``(tile_t, teams)`` of the FFT or the smooth route's block, or None:
-    ``tile_t`` frames a multiple of ``2 overlap`` (the synthesis's pair groups
-    start at the block's first frame, the analysis's pairs ``(2j, 2j + 1)`` at
-    an even one), chosen with the analysis's ``tile_t / 2`` pairs by
-    ``frames_fft.class_plan`` where ``fft_covers(n_fft)`` (56 frames and 4
-    FFTs at 1024/256, two blocks an SM) and ``class_plan_smooth`` where
-    ``fft_covers_smooth(n_fft)``, with up to four blocks an SM (the smooth
-    instance takes 64 registers: 56 frames and 4 FFTs at 768/192, 24 and 4
-    at 640/160; ``chip_smoke.py``'s plan sweep on an H100 found it the
-    fastest plan at three of five shapes and within 2.7 % at the others,
-    where two blocks an SM at most picked 56 x 4 at 640/160, 20.4 % slower);
-    None on the product route's sizes."""
+    """``(tile_t, teams)`` of the FFT or the smooth route's block
+    (:func:`_fft_plan` over :func:`_fft_smem_bytes`), or None on the
+    product route's sizes: 56 frames and 4 FFTs at 1024/256 (two blocks an
+    SM) and at 768/192, 24 and 4 at 640/160 (four blocks an SM:
+    ``chip_smoke.py``'s plan sweep on an H100 found it the fastest plan at
+    three of five shapes and within 2.7 % at the others, where two blocks an
+    SM at most picked 56 x 4 at 640/160, 20.4 % slower), 24 and 4 at 896/224
+    (the radix-7 instance, :data:`STEP_SEVEN_BLOCKS`)."""
     overlap = n_fft // hop
 
     def smem(t, teams):
         return _fft_smem_bytes(t, overlap, hop, teams)
 
-    if fft_covers(n_fft):
-        return class_plan(n_fft, hop, smem, analysis_pairs=lambda t: t // 2)
-    if fft_covers_smooth(n_fft):
-        return class_plan_smooth(n_fft, hop, smem, blocks=4, analysis_pairs=lambda t: t // 2)
-    return None
+    return _fft_plan(n_fft, hop, smem, STEP_SEVEN_BLOCKS)
 
 
 def gl_step_route(n_fft: int, hop_length: int) -> str:
     """The route of C, D and I at ``(n_fft, hop_length)``, read by the
     kernel wrappers and the plain versions alike: ``"fft"`` where
     ``fft_covers(n_fft)`` (a power of two from 64 to 4096), ``"smooth"`` where
-    ``fft_covers_smooth(n_fft)`` and a smooth block fits
-    (:func:`_step_fft_plan`), else ``"product"``."""
+    ``fft_covers_smooth7(n_fft)`` and a smooth block fits
+    (:func:`_step_fft_plan`; the radix-7 instance where ``n_fft`` has a
+    factor 7: 896, 1344, 1568, ...), else ``"product"`` (1408 = 2^7 11,
+    8192, ...)."""
     if fft_covers(n_fft):
         return "fft"
-    if fft_covers_smooth(n_fft) and _step_fft_plan(n_fft, hop_length) is not None:
-        return "smooth"
-    return "product"
+    return "product" if _step_fft_plan(n_fft, hop_length) is None else "smooth"
 
 
 def _fft_operands(taps, n_fft: int, dev):
@@ -721,29 +744,19 @@ FULLK_SEVEN_BLOCKS = 3
 
 @functools.lru_cache(maxsize=None)
 def _pick_fullk_fft_block(n_fft: int, hop: int) -> Optional[Tuple[int, int, int]]:
-    """``(rows, tile_t, teams)`` of the FFT route (``fft_covers(n_fft)``) or
-    the smooth route (``fft_covers_smooth7(n_fft)``), or None: ``tile_t``
-    frames a multiple of ``2 overlap`` (the synthesis's pair groups start at
-    the block's first frame, the analysis's pairs ``(2j, 2j + 1)`` at an even
-    one), ``rows = tile_t + overlap`` chunks, chosen with the analysis's
-    ``tile_t / 2`` pairs by ``frames_fft.class_plan``, or on the smooth route
-    ``class_plan_smooth`` with up to four blocks an SM (64 registers: 12
-    frames and 4 FFTs at 768/256, the fastest plan of ``chip_smoke.py``'s
-    sweep at all five shapes; the analysis's term moved the pick there from
-    42 frames, 3.3 % slower on an H100), and where ``n_fft`` has a factor 7
-    (the radix-7 instance) up to :data:`FULLK_SEVEN_BLOCKS`."""
+    """``(rows, tile_t, teams)`` of the FFT or the smooth route's block
+    (:func:`_fft_plan` over :func:`_fullk_fft_smem_bytes`), ``rows =
+    tile_t + overlap`` chunks, or None: on the smooth route 12 frames and 4
+    FFTs at 768/256, the fastest plan of ``chip_smoke.py``'s sweep at all five
+    shapes (the analysis's term moved the pick there from 42 frames, 3.3 %
+    slower on an H100), and where ``n_fft`` has a factor 7 (the radix-7
+    instance) up to :data:`FULLK_SEVEN_BLOCKS` blocks an SM."""
     overlap = n_fft // hop
 
     def smem(t, teams):
         return _fullk_fft_smem_bytes(t + overlap, hop, n_fft, teams)
 
-    if fft_covers(n_fft):
-        plan = class_plan(n_fft, hop, smem, analysis_pairs=lambda t: t // 2)
-    elif fft_covers_smooth7(n_fft):
-        blocks = FULLK_SEVEN_BLOCKS if n_fft % 7 == 0 else 4
-        plan = class_plan_smooth(n_fft, hop, smem, blocks=blocks, analysis_pairs=lambda t: t // 2)
-    else:
-        plan = None
+    plan = _fft_plan(n_fft, hop, smem, FULLK_SEVEN_BLOCKS)
     if plan is None:
         return None
     tile_t, teams = plan
@@ -758,13 +771,11 @@ def _fullk_plan(n_fft: int, hop: int) -> Optional[Tuple[str, int, int, int]]:
     fits (the radix-7 instance where ``n_fft`` has a factor 7), else
     ``("product", rows, tile_t, slab)`` (:func:`_pick_fullk_block`); None
     when no block fits.  The route reads ``(n_fft, hop)`` alone."""
+    pick = _pick_fullk_fft_block(n_fft, hop)
+    if pick is not None:
+        return ("fft" if fft_covers(n_fft) else "smooth",) + pick
     if fft_covers(n_fft):
-        pick = _pick_fullk_fft_block(n_fft, hop)
-        return None if pick is None else ("fft",) + pick
-    if fft_covers_smooth7(n_fft):
-        pick = _pick_fullk_fft_block(n_fft, hop)
-        if pick is not None:
-            return ("smooth",) + pick
+        return None
     pick = _pick_fullk_block(n_fft, hop)
     return None if pick is None else ("product",) + pick
 

@@ -67,9 +67,10 @@ for the syntheses of C, D, I, J, L, M, K, P, S and O) at a power of two
 from 64 to 4096, the window-folded products elsewhere (R, L, M, P, S,
 O's synthesis, E, F, G, H, J, C, D, I and K's synthesis take a third route,
 the mixed-radix FFT, at even 5-smooth n_fft; R, the magnitude encode, L,
-M, P, S, O's synthesis, E, F, G, H, J and K's synthesis also at even
-7-smooth n_fft with a factor 7, on their radix-7 instances, the roundtrips,
-G, H, J and K's synthesis where their block fits); so do the log-mel
+M, P, S, O's synthesis, E, F, G, H, J, C, D, I and K's synthesis also at
+even 7-smooth n_fft with a factor 7, on their radix-7 instances, the
+roundtrips, G, H, J, C, D, I and K's synthesis where their block fits); so
+do the log-mel
 forward and fit (A and B: E's and F's FFT, smooth and radix-7 instances under the
 taps' own window, the factored front end elsewhere), the representations' forward
 and fit statistics with taps (G and H: G and H full-K's FFT, smooth and
@@ -88,8 +89,8 @@ extrema bit-identical and sums within 1e-5, at every power of two from 64
 under hann, hamming and blackman) and against a float64 oracle at 1024, 512,
 2048 and 4096 (C, D, I, K, G, H, P, S and O's synthesis at every power of
 two from 64), the factored route at 1408/352 (A, B, G, H), and
-the product route at 896/224 (C, D, I),
-8192/2048 (J) and 1408/352 (R, L, M, P, S, O's synthesis, E, F, G, H, J, K),
+the product route at 8192/2048 (J) and 1408/352 (R, L, M, P, S, O's
+synthesis, E, F, G, H, J, K, C, D, I),
 and the smooth route of R, L, M, P, S, O's synthesis and O's polish (the
 mixed-radix FFT) at 1200/300, 960/240, 768/192, 400/100 and 1920/480, and
 of R, the magnitude encode, L, M, P, S and O's synthesis (its radix-7
@@ -107,8 +108,10 @@ the extrema bit-identical, the mel product's and the sums' order aside), of
 J's radix-7 instance at 896/224, 896/128, 1344/192, 1568/224, 672/96 and
 4032/2016 and K's synthesis's at 896/224, 1344/336, 1568/224, 1764/252 and
 4032/1008 (bit-identical, within 1e-5 of the float64 oracle), of
-J, C, D and I at those seven framings (bit-identical, D to four C, every
-frame of C, I and J within 1e-5 of the float64 oracle), of G and H full-K
+J, C, D and I at those seven framings and C, D and I (their radix-7
+instance) at 896/224, 896/128, 1568/224, 672/96 and 1344/192 (bit-identical,
+D to four C, every frame of C, I and J within 1e-5 of the float64 oracle),
+of G and H full-K
 at those seven and (their radix-7 instance) at 896/224, 896/128, 1568/224,
 1344/192 and 672/96 (within 1e-6 of the plain version, 1e-5 of the float64
 oracle; G and H with taps at 768/192 under hann, hamming and blackman, and
@@ -135,7 +138,9 @@ two-launch synthesis and analysis among them) on the product route;
 ``pghi`` inverts: K's synthesis on the smooth route, ``DGT(896, 224)`` on
 its radix-7 instance, ``DGT(1408, 352)`` on the product route; STFT(768,
 192) and STFT(896, 224)
-Griffin-Lim inverts (C, D on the smooth, then the product route),
+Griffin-Lim inverts (C, D on the smooth route, then its radix-7 instance,
+timed in turns with the product route 896 took before), the STFT(1408,
+352) one (C, D on the product route),
 STFT(768, 192) log-mel (A, B on the smooth route) and Polar chains' fit and
 forward, a DGT(768, 256) chain's fit and forward (E, F on the smooth
 route), ``pghi`` and ``pghi_gl`` (J on the smooth route), DGT(768, 256) +
@@ -219,6 +224,9 @@ SESSION_SMOOTH_SHAPES = ((1200, 300), (960, 240), (768, 192), (400, 100), (1920,
 # 7, 2^6 3 7 at overlap 7, 2^5 7^2 (radices 7 7) at overlap 7, 2^5 3 7 at
 # overlap 7, 2^6 3^2 7 at overlap 2
 J_SEVEN_SHAPES = ((896, 224), (896, 128), (1344, 192), (1568, 224), (672, 96), (4032, 2016))
+# and C's, D's and I's: 2^7 7 at overlap 4 and 7, 2^5 7^2 (radices 7 7) and
+# 2^5 3 7 at overlap 7, 2^6 3 7 at overlap 7
+GL_SEVEN_SHAPES = ((896, 224), (896, 128), (1568, 224), (672, 96), (1344, 192))
 # and K's synthesis's: 2^7 7 and 2^6 3 7 at overlap 4, 2^5 7^2 at overlap
 # 7, 2^2 3^2 7^2 at overlap 7, 2^6 3^2 7 at overlap 4
 K_SEVEN_SHAPES = ((896, 224), (1344, 336), (1568, 224), (1764, 252), (4032, 1008))
@@ -242,8 +250,8 @@ def log(msg: str) -> None:
 
 #: the smooth route's plan sweep: the framings it times E and F at
 PLAN_SWEEP_SHAPES = ((768, 256), (768, 192), (640, 160), (1536, 384), (1920, 480))
-#: and those of the radix-7 instances of E and F, J and K's synthesis (and
-#: of G and H: the first)
+#: and those of the radix-7 instances of E and F, C, J and K's synthesis
+#: (and of G and H: the first)
 SEVEN_PLAN_SWEEP_SHAPES = ((896, 224), (1568, 224))
 
 
@@ -452,9 +460,8 @@ def repr_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
 
 def gl_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
     """C (hann) and J (the DGT's gaussian) on the smooth route at each of
-    PLAN_SWEEP_SHAPES, and J on its radix-7 instance at each of
-    SEVEN_PLAN_SWEEP_SHAPES (C has none: the product route there), under
-    every plan the kernels take (tile_t a multiple
+    PLAN_SWEEP_SHAPES, and on their radix-7 instances at each of
+    SEVEN_PLAN_SWEEP_SHAPES, under every plan the kernels take (tile_t a multiple
     of 2 overlap up to 64 x 1, 2, 4, ... FFTs side by side, within the
     route's teams and shared memory), the card's time a call back to back
     (device_ms); the output must be bit-identical under every plan (the
@@ -470,7 +477,7 @@ def gl_plan_sweep(mono: torch.Tensor, repeats: int) -> dict:
     try:
         for n_fft, hop in PLAN_SWEEP_SHAPES + SEVEN_PLAN_SWEEP_SHAPES:
             ov = n_fft // hop
-            for kernel in ("C", "J") if (n_fft, hop) in PLAN_SWEEP_SHAPES else ("J",):
+            for kernel in ("C", "J"):
                 if kernel == "C":
                     w = get_window("hann", n_fft, device=mono.device)
                     taps = taps_for_window(w)
@@ -676,21 +683,23 @@ def gl_route_turns(mono: torch.Tensor, repeats: int) -> dict:
     gaussian) on the product instance, the route these shapes took before
     the smooth one (glstep.gl_step_route / _fullk_plan forced to
     "product"), and on the smooth instance, in turns product, smooth,
-    smooth, product, the card's time a call back to back (device_ms).
-    Returns per (route, kernel) the two turns' times."""
+    smooth, product, the card's time a call back to back (device_ms); C, D
+    and I at 896/224 (hann) likewise, the product instance against the
+    radix-7 one (keys "C7", "D7", "I7").  Returns per (route, kernel) the
+    two turns' times."""
     from acids_transforms_tpu_torch.ops.cuda import glstep
     from acids_transforms_tpu_torch.ops.fft import stft, taps_for_window
     from acids_transforms_tpu_torch.ops.windows import gaussian_dgt_window, get_window
 
     dev, mom = mono.device, 0.99 / 1.99
     rule_c, rule_j = glstep.gl_step_route, glstep._fullk_plan
-    w = get_window("hann", 768, device=dev)
-    taps = taps_for_window(w)
+    w, w7 = get_window("hann", 768, device=dev), get_window("hann", 896, device=dev)
+    taps, taps7 = taps_for_window(w), taps_for_window(w7)
     wg = gaussian_dgt_window(768, device=dev)
-    mag, magj = stft(mono, 768, 192, w).abs(), stft(mono, 768, 256, wg).abs()
+    mag, magj, mag7 = stft(mono, 768, 192, w).abs(), stft(mono, 768, 256, wg).abs(), stft(mono, 896, 224, w7).abs()
     g = torch.Generator(device=dev).manual_seed(768)
-    st, stj = [tuple(f(ph) for f in (torch.cos, torch.sin, torch.zeros_like, torch.zeros_like))
-               for ph in (2 * math.pi * torch.rand(m.shape, generator=g, device=dev) for m in (mag, magj))]
+    st, stj, st7 = [tuple(f(ph) for f in (torch.cos, torch.sin, torch.zeros_like, torch.zeros_like))
+                    for ph in (2 * math.pi * torch.rand(m.shape, generator=g, device=dev) for m in (mag, magj, mag7))]
     out = {}
     try:
         for product in (True, False, False, True):
@@ -700,10 +709,13 @@ def gl_route_turns(mono: torch.Tensor, repeats: int) -> dict:
             s1 = glstep.make_gl_momentum_step(mag, 768, 192, taps, w, mom)[0]
             s4 = glstep.make_gl_momentum_step(mag, 768, 192, taps, w, mom, iters=4)[0]
             sj = glstep.make_gl_momentum_step_fullk(magj, 768, 256, wg, mom)[0]
+            s1_7 = glstep.make_gl_momentum_step(mag7, 896, 224, taps7, w7, mom)[0]
+            s4_7 = glstep.make_gl_momentum_step(mag7, 896, 224, taps7, w7, mom, iters=4)[0]
             route = "product" if product else "smooth"
             for key, fn in (("C", lambda: s1(*st)), ("D", lambda: s4(*st)),
                             ("I", lambda: glstep.gl_project(mag, st[0], st[1], 768, 192, taps, w)),
-                            ("J", lambda: sj(*stj))):
+                            ("J", lambda: sj(*stj)), ("C7", lambda: s1_7(*st7)), ("D7", lambda: s4_7(*st7)),
+                            ("I7", lambda: glstep.gl_project(mag7, st7[0], st7[1], 896, 224, taps7, w7))):
                 out.setdefault((route, key), []).append(device_ms(fn, repeats))
             glstep.gl_step_route, glstep._fullk_plan = rule_c, rule_j
     finally:
@@ -750,24 +762,27 @@ def repr_smooth_resources(res: dict) -> dict:
 
 def gl_smooth_resources(res: dict) -> dict:
     """The build log's resources of the Griffin-Lim steps' 5-smooth
-    instances (template argument kSmooth = true): ``gl_step_fft_kernel<true>``
-    (C, D, I; ``ILb1EE`` in the mangled name) and ``gl_fullk_fft_kernel<true,
-    false>`` (J; ``ILb1ELb0EE``)."""
+    instances (template arguments kSmooth = true, kSeven = false):
+    ``gl_step_fft_kernel<true, false>`` (C, D, I) and
+    ``gl_fullk_fft_kernel<true, false>`` (J; ``ILb1ELb0EE`` in both mangled
+    names)."""
     return {k: v for k, v in res.items()
-            if "gl_step_fft_kernelILb1EE" in k or "gl_fullk_fft_kernelILb1ELb0EE" in k}
+            if "gl_step_fft_kernelILb1ELb0EE" in k or "gl_fullk_fft_kernelILb1ELb0EE" in k}
 
 
 def gl_k_seven_resources(res: dict) -> dict:
-    """The build log's resources of J's and K's synthesis's radix-7
-    instances (``gl_fullk_fft_kernel<true, true>``,
-    ``pghi_synthesize_fft_kernel<true, true>``: ``ILb1ELb1EE``), by the
-    labels ``J`` and ``K``."""
+    """The build log's resources of the radix-7 instances of J, K's
+    synthesis and C (so D and I): ``gl_fullk_fft_kernel<true, true>``,
+    ``pghi_synthesize_fft_kernel<true, true>``, ``gl_step_fft_kernel<true,
+    true>`` (``ILb1ELb1EE``), by the labels ``J``, ``K`` and ``C``."""
     out = {}
     for k, v in res.items():
         if "gl_fullk_fft_kernelILb1ELb1EE" in k:
             out["J"] = v
         elif "pghi_synthesize_fft_kernelILb1ELb1EE" in k:
             out["K"] = v
+        elif "gl_step_fft_kernelILb1ELb1EE" in k:
+            out["C"] = v
     return out
 
 
@@ -836,7 +851,7 @@ def smooth_instance_resources(res: dict) -> dict:
     kernel, by its mangled name: the sessions' (encode, roundtrip, decode,
     polish, O's analysis; their kSmooth argument true), E's and F's (the radix-7 ones
     too), G's and H's (the radix-7 ones too), the Griffin-Lim steps' and K's
-    synthesis's (J's and K's radix-7 ones too)."""
+    synthesis's (the radix-7 ones of J, K and C too)."""
     out = dict(melspec_smooth_resources(res))
     out.update(melspec_smooth_resources(res, seven=True))
     out.update({k: v for k, v in res.items() if ("repr_forward_kernel" in k or "repr_stats_kernel" in k)
@@ -844,6 +859,7 @@ def smooth_instance_resources(res: dict) -> dict:
     out.update(gl_smooth_resources(res))
     for k, v in res.items():
         if ("pghi_synthesize_fft_kernelILb1E" in k or "gl_fullk_fft_kernelILb1ELb1EE" in k
+                or "gl_step_fft_kernelILb1ELb1EE" in k
                 or "gl_polish_fft_kernelIL" in k and ("ELb1ELb0EE" in k or "ELb1ELb1EE" in k)
                 or "gl_project_analysis_fft_kernelILb1E" in k
                 or "session_decode_fft_kernelIL" in k and ("ELb1ELb0EE" in k or "ELb1ELb1EE" in k)
@@ -1011,9 +1027,10 @@ def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain
     """Kernels C and D against the plain version, a float64 oracle and each
     other, on the route (n_fft, hop) picks (glstep.gl_step_route): the FFT
     route (a power of two from 64 to 4096) and the smooth route (even
-    5-smooth n_fft) also against their plain version on every frame within
-    1e-6 (it repeats the kernel's float32 operations in order: measured
-    bit-identical)."""
+    7-smooth n_fft; its radix-7 instance where n_fft has a factor 7, its
+    errors kept as the rows ``C_smooth7`` / ``D_smooth7``) also against their
+    plain version on every frame within 1e-6 (it repeats the kernel's float32
+    operations in order: measured bit-identical)."""
     from acids_transforms_tpu_torch.ops.cuda import glstep
 
     dev = mag.device
@@ -1181,7 +1198,7 @@ def check_gl(name, mag, n_fft, hop, taps, window, mom, seed, tol, results, chain
     log(f"  {name}: C and D launches by route {got}")
     require(set(got) == {f"gl_momentum_step:{route}", f"gl_momentum_chain:{route}"},
             f"{name}: C and D must take the {route} route")
-    key = {"fft": "", "smooth": "_smooth", "product": "_product"}[route]
+    key = {"fft": "", "smooth": "_smooth7" if n_fft % 7 == 0 else "_smooth", "product": "_product"}[route]
     results["C" + key] = max(results.get("C" + key, 0.0), err_c)
     results["D" + key] = max(results.get("D" + key, 0.0), abs_d)
     return state, step1, step4, env
@@ -2795,14 +2812,19 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
 
     # C and D through the Griffin-Lim invert of an STFT(n_fft, hop, hann) on 16
     # clips (7 D + 2 C), converging like the eager loop from the same seed:
-    # the smooth route at 768/192 (2^8 3), the product route at 896/224 (2^7
-    # 7).  Each path timed again once warm (host clock to the card's end)
+    # the smooth route at 768/192 (2^8 3), its radix-7 instance at 896/224
+    # (2^7 7; `seven`: counted `:smooth7` for its rows, and the invert timed
+    # in turns with the product route 896 took before: old, new, new, old,
+    # one call alone, host clock to the card's end, median of 3), the product
+    # route at 1408/352 (2^7 11).  Each path timed again once warm (host
+    # clock to the card's end)
     from acids_transforms_tpu_torch.ops.cuda import glstep as gs
 
-    def gl_invert(n_fft, hop, route):
+    def gl_invert(n_fft, hop, route, seven=False):
         st_g = T.STFT(n_fft=n_fft, hop_length=hop)
         mag_g = st_g(mono[:16]).abs()
-        require(gs.gl_step_route(n_fft, hop) == route, f"STFT({n_fft}, {hop}) must take the {route} route")
+        require(gs.gl_step_route(n_fft, hop) == route and (n_fft % 7 == 0) == seven,
+                f"STFT({n_fft}, {hop}) must take the {route} route" + (" (its radix-7 instance)" if seven else ""))
 
         def run(fused):
             torch.cuda.synchronize()
@@ -2814,12 +2836,13 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
         rec_g, _ = run(None)
         got = {k: v for k, v in gs.routes.items() if v}
         log(f"  STFT({n_fft}, {hop}) Griffin-Lim invert on {tuple(mag_g.shape)}: launches "
-            f"{ {k: v for k, v in gs.launches.items() if v} }, routes {got}")
+            f"{ {k: v for k, v in gs.launches.items() if v} }, routes {got}"
+            + (" (the radix-7 instance)" if seven else ""))
         require(set(got) == {f"gl_momentum_step:{route}", f"gl_momentum_chain:{route}"}
                 and launched() == sum(got.values()),
                 f"STFT({n_fft}, {hop}) Griffin-Lim: C and D must launch on the {route} route")
         for k, v in got.items():
-            counts[k] += v
+            counts[k + ("7" if seven else "")] += v
         rec_ge, _ = run(False)
         (_, t_k), (_, t_e) = run(None), run(False)
 
@@ -2833,9 +2856,27 @@ def structure_phase(dev, mono, stream, wrappers, errs, counts):
             f"{t_k:.2f} ms through the kernels, {t_e:.2f} ms eager")
         require(torch.isfinite(rec_g).all().item() and s_k < max(1.15 * s_e, s_e + 0.02),
                 f"STFT({n_fft}, {hop}) Griffin-Lim: the {route} route converges worse than the eager loop")
+        if not seven:
+            return
+        rule = gs.gl_step_route
+
+        def inv():
+            return st_g.griffin_lim(mag_g, generator=torch.Generator(device=dev).manual_seed(157))
+
+        def on_product():
+            gs.gl_step_route = lambda *a: "product"
+            try:
+                return time_ms(inv, 3)
+            finally:
+                gs.gl_step_route = rule
+        turns = [on_product(), time_ms(inv, 3), time_ms(inv, 3), on_product()]
+        log(f"    STFT({n_fft}, {hop}) Griffin-Lim invert, one call alone (host clock to the card's end, median of "
+            f"3), in turns the product route {n_fft} took before, radix-7, radix-7, product: "
+            f"{' / '.join(f'{t:.3f}' for t in turns)} ms")
 
     gl_invert(768, 192, "smooth")
-    gl_invert(896, 224, "product")
+    gl_invert(896, 224, "smooth", seven=True)
+    gl_invert(1408, 352, "product")
 
     # A, B, E and F through the entry points: the DGT magnitude chain's and
     # the STFT log-mel chain's fit and forward at 768 (2^8 3: the smooth
@@ -4626,24 +4667,25 @@ def main() -> int:
     log(f"    the Griffin-Lim smooth route: every one of {n_gl} shapes takes it, plans and shared-memory sizes agree "
         f"(C / D / I at 768/192 {glstep._step_fft_plan(768, 192)}, 640/160 {glstep._step_fft_plan(640, 160)} as "
         f"(frames, FFTs); J at 768/256 {glstep._fullk_plan(768, 256)} as (route, chunks, frames, FFTs))")
-    # J and K's synthesis on the smooth route's radix-7 instance: every even
-    # 7-smooth shape with a factor 7 their gates take (J: hop a multiple of
-    # 32, overlap 2 to 8, 42 shapes; K: hop a multiple of 4 and a product
-    # tile that fits, 321), the route and the plan's layout against the
-    # source's at the plan's team count and one team; C, D and I keep the
-    # product route there; the two instances' registers and spill, and the
-    # blocks an SM their plans count against what those registers allow
+    # J, K's synthesis and C / D / I on the smooth route's radix-7 instance:
+    # every even 7-smooth shape with a factor 7 their gates take (J and C: hop
+    # a multiple of 32, overlap 2 to 8, 42 shapes; K: hop a multiple of 4 and
+    # a product tile that fits, 321), the route and the plan's layout against
+    # the source's at the plan's team count and one team; the three instances'
+    # registers and spill, and the blocks an SM their plans count against what
+    # those registers allow
     jk_res = gl_k_seven_resources(_build.kernel_resources())
+    seven_plan_blocks = {"J": glstep.FULLK_SEVEN_BLOCKS, "K": pghi_kernel.SYNTH_SEVEN_BLOCKS,
+                         "C": glstep.STEP_SEVEN_BLOCKS}
     for name, res in jk_res.items():
         log(f"    {name} radix-7 instance: {res['registers']} registers, spill stores / loads "
             f"{res.get('spill_stores', 0)} / {res.get('spill_loads', 0)} B, {seven_blocks(res['registers'])} blocks "
-            f"an SM by registers (the plan counts "
-            f"{glstep.FULLK_SEVEN_BLOCKS if name == 'J' else pghi_kernel.SYNTH_SEVEN_BLOCKS})")
-    require(set(jk_res) == {"J", "K"} and all(r["registers"] <= 128 for r in jk_res.values()),
-            f"the radix-7 instances of J and K's synthesis: two, at most 128 registers (found {sorted(jk_res)})")
-    require(seven_blocks(jk_res["J"]["registers"]) == glstep.FULLK_SEVEN_BLOCKS
-            and seven_blocks(jk_res["K"]["registers"]) == pghi_kernel.SYNTH_SEVEN_BLOCKS,
-            "J's or K's radix-7 plan counts another number of blocks an SM than the instance's registers allow")
+            f"an SM by registers (the plan counts {seven_plan_blocks[name]})"
+            + (" (C's is D's and I's too)" if name == "C" else ""))
+    require(set(jk_res) == {"J", "K", "C"} and all(r["registers"] <= 128 for r in jk_res.values()),
+            f"the radix-7 instances of J, K's synthesis and C: three, at most 128 registers (found {sorted(jk_res)})")
+    require(all(seven_blocks(jk_res[k]["registers"]) == v for k, v in seven_plan_blocks.items()),
+            "J's, K's or C's radix-7 plan counts another number of blocks an SM than the instance's registers allow")
     sevens = [n for n in range(64, 4097, 2) if ff.fft_covers_smooth7(n) and n % 7 == 0]
     n_seven_j = n_seven_k = 0
     for n_fft_s in sevens:
@@ -4652,15 +4694,21 @@ def main() -> int:
             if n_fft_s % ov_s or not glstep.gl_fullk_available(n_fft_s, hop_s):
                 continue
             route_j, rows_j, tile_j, teams_j = glstep._fullk_plan(n_fft_s, hop_s)
-            require(route_j == "smooth" and glstep.gl_step_route(n_fft_s, hop_s) == "product"
-                    and tile_j % (2 * ov_s) == 0 and rows_j == tile_j + ov_s,
-                    f"{n_fft_s}/{hop_s}: J must take its radix-7 instance, C / D / I the product")
+            tile_c, teams_c = glstep._step_fft_plan(n_fft_s, hop_s)
+            require(route_j == "smooth" and glstep.gl_step_route(n_fft_s, hop_s) == "smooth"
+                    and tile_j % (2 * ov_s) == 0 and rows_j == tile_j + ov_s and tile_c % (2 * ov_s) == 0,
+                    f"{n_fft_s}/{hop_s}: J and C / D / I must take their radix-7 instances")
             for tm in sorted({1, teams_j}):
                 require(lib.att_gl_fullk_fft_smem_bytes(rows_j, hop_s, n_fft_s, tm)
                         == glstep._fullk_fft_smem_bytes(rows_j, hop_s, n_fft_s, tm),
                         f"{n_fft_s}/{hop_s}: J's radix-7 shared-memory size: wrapper and source disagree")
-            require(glstep._fullk_fft_smem_bytes(rows_j, hop_s, n_fft_s, teams_j) <= ff.MAX_SMEM,
-                    f"{n_fft_s}/{hop_s}: J's radix-7 plan exceeds shared memory")
+            for tm in sorted({1, teams_c}):
+                require(lib.att_gl_fft_smem_bytes(tile_c, ov_s, hop_s, tm)
+                        == glstep._fft_smem_bytes(tile_c, ov_s, hop_s, tm),
+                        f"{n_fft_s}/{hop_s}: C / D / I's radix-7 shared-memory size: wrapper and source disagree")
+            require(glstep._fullk_fft_smem_bytes(rows_j, hop_s, n_fft_s, teams_j) <= ff.MAX_SMEM
+                    and glstep._fft_smem_bytes(tile_c, ov_s, hop_s, teams_c) <= ff.MAX_SMEM,
+                    f"{n_fft_s}/{hop_s}: J's or C's radix-7 plan exceeds shared memory")
             n_seven_j += 1
         for hop_s in range(4, n_fft_s // 2 + 1, 4):
             if n_fft_s % hop_s or not pghi_kernel.pghi_fused_available(n_fft_s, hop_s):
@@ -4673,11 +4721,15 @@ def main() -> int:
                         == pghi_kernel._synth_fft_smem_bytes(rows, hop_s, n_fft_s, tm),
                         f"{n_fft_s}/{hop_s}: K's radix-7 shared-memory size: wrapper and source disagree")
             n_seven_k += 1
-    log(f"    J and K's synthesis on the radix-7 instance: {n_seven_j} / {n_seven_k} shapes, routes and shared-memory "
-        f"sizes agree (J at 896/224 {glstep._fullk_plan(896, 224)}, 1568/224 {glstep._fullk_plan(1568, 224)} as "
-        f"(route, chunks, frames, FFTs); K at 896/224 {pghi_kernel._synth_fft_plan(896, 224)}, 1344/336 "
-        f"{pghi_kernel._synth_fft_plan(1344, 336)} as (chunks, FFTs))")
-    require(n_seven_j == 42 and n_seven_k == 321, "the radix-7 route of J and K: 42 and 321 shapes")
+    log(f"    J, C / D / I and K's synthesis on the radix-7 instance: {n_seven_j} / {n_seven_j} / {n_seven_k} shapes, "
+        f"routes and shared-memory sizes agree (J at 896/224 {glstep._fullk_plan(896, 224)}, 1568/224 "
+        f"{glstep._fullk_plan(1568, 224)} as (route, chunks, frames, FFTs); C / D / I at 896/224 "
+        f"{glstep._step_fft_plan(896, 224)}, 1568/224 {glstep._step_fft_plan(1568, 224)}, 672/224 "
+        f"{glstep._step_fft_plan(672, 224)} as (frames, FFTs); K at 896/224 {pghi_kernel._synth_fft_plan(896, 224)}, "
+        f"1344/336 {pghi_kernel._synth_fft_plan(1344, 336)} as (chunks, FFTs))")
+    require(n_seven_j == 42 and n_seven_k == 321, "the radix-7 route of J, C and K: 42, 42 and 321 shapes")
+    require(glstep.gl_step_route(1408, 352) == "product" and glstep._fullk_plan(1408, 352)[0] == "product",
+            "1408/352 (2^7 11): C, D, I and J must keep the product route")
     # O's polish on its radix-7 instance and O's analysis on the FFT and
     # smooth routes: the new instances' registers and spill (the analysis
     # runs the encode's block, two an SM: at most 128 registers; the polish
@@ -5092,11 +5144,12 @@ def main() -> int:
                  args.seed + n_fft + hop, 1e-4, errs, chain=chain)
     # C and D on the FFT route at the other powers of two it takes (hop
     # n_fft / 4, at least the kernels' 32; 4096/2048 the widest hop), on the
-    # smooth route at every SMOOTH_SHAPES framing (even 5-smooth n_fft:
-    # bit-identical to the plain version, every frame of C within 1e-5 of
-    # the float64 oracle), and on the product route (896/224 = 2^7 7)
-    for n_fft, hop in ((64, 32), (128, 32), (256, 64), (512, 128), (2048, 512), (4096, 2048), (896, 224)) \
-            + SMOOTH_SHAPES:
+    # smooth route at every SMOOTH_SHAPES framing (even 5-smooth n_fft) and
+    # its radix-7 instance at every GL_SEVEN_SHAPES framing (bit-identical to
+    # the plain version, every frame of C within 1e-5 of the float64 oracle),
+    # and on the product route (1408/352 = 2^7 11)
+    for n_fft, hop in ((64, 32), (128, 32), (256, 64), (512, 128), (2048, 512), (4096, 2048), (1408, 352)) \
+            + SMOOTH_SHAPES + GL_SEVEN_SHAPES:
         w_s = get_window("hann", n_fft, device=dev)
         check_gl(f"{n_fft}/{hop} hann", att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop,
                  taps_for_window(w_s), w_s, mom, args.seed + 3 * n_fft + hop, 1e-4, errs,
@@ -5711,13 +5764,13 @@ def main() -> int:
             log(f"  I {name} ({route} route, block {glstep._step_fft_plan(n_fft, hop)}): every frame vs plain "
                 f"{e_all:.3e} (tol 1e-06; bit-identical {bit}), vs float64 oracle {e_k:.3e} (tol 1e-05)")
             require(e_all <= 1e-6 and e_k <= 1e-5, f"I {name}: the {route} route out of budget")
-        key = {"fft": "I", "smooth": "I_smooth", "product": "I_product"}[route]
+        key = {"fft": "I", "smooth": "I_smooth7" if n_fft % 7 == 0 else "I_smooth", "product": "I_product"}[route]
         errs[key] = max(errs.get(key, 0.0), max(abs_err(rk[i][:, m:-m], rp[i][:, m:-m]) for i in (0, 1)))
 
     check_project("main shape", gl_mag, N_FFT, HOP, "hann", args.seed + 31)
     check_project("512/128", mag_rag, 512, 128, "hamming", args.seed + 32)
     for n_fft, hop, wname in ((64, 32, "hann"), (256, 64, "blackman"), (2048, 512, "hann"), (4096, 2048, "hann"),
-                              (896, 224, "hann")) + tuple((n, h, "hann") for n, h in SMOOTH_SHAPES):
+                              (1408, 352, "hann")) + tuple((n, h, "hann") for n, h in SMOOTH_SHAPES + GL_SEVEN_SHAPES):
         w_s = get_window(wname, n_fft, device=dev)
         check_project(f"{n_fft}/{hop}", att.ops.stft(small, n_fft, hop, w_s).abs(), n_fft, hop, wname,
                       args.seed + 5 * n_fft + hop)
@@ -5845,7 +5898,8 @@ def main() -> int:
         require(glstep.routes[k + ":fft"] == counts[k],
                 f"{k}: the main path's launches must all take the FFT route")
         counts[k + ":fft"] = glstep.routes[k + ":fft"]
-        counts[k + ":smooth"] = 0       # the smooth and the product route's launches: phase 4h
+        counts[k + ":smooth"] = 0       # the smooth, radix-7 and product route's launches: phase 4h
+        counts[k + ":smooth7"] = 0
         counts[k + ":product"] = 0
     log(f"  A and B by route: { {k: v for k, v in spectral.routes.items() if v} }")
     require(spectral.routes["fused_melspec_stats:fft"] == counts["fused_melspec_stats"]
@@ -6170,6 +6224,7 @@ def main() -> int:
     counts["gl_project"] = sum(c["gl_project"] for c in (counts, dgt_counts, r_counts, p_counts, gl_counts))
     require(counts["gl_project"] == 0, "gl_project was launched on a main path")
     counts["gl_project:fft"] = counts["gl_project:smooth"] = counts["gl_project:product"] = 0
+    counts["gl_project:smooth7"] = 0
     require(tuple(rec_gl.shape) == (B, 1, HOP * (n_frames - 1)) and torch.isfinite(rec_gl).all().item(),
             f"pghi_gl audio {tuple(rec_gl.shape)}")
     s_j = dgt_convergence(rec_gl.squeeze(-2), dgt_target)
@@ -6236,16 +6291,23 @@ def main() -> int:
         v = torch.log1p(lib_spec(mono))
         return v.sum(), (v * v).sum(), v.min(), v.max()
 
-    def lib_gl(iters):
-        a = torch.complex(gl_state[0], gl_state[1])
-        tp = torch.complex(gl_state[2], gl_state[3])
+    def lib_gl_at(mag_l, st_l, n_l, hop_l, w_l, iters):
+        """C's and D's yardstick: `iters` momentum iterations of torch.istft
+        + torch.stft from the state `st_l`."""
+        a = torch.complex(st_l[0], st_l[1])
+        tp = torch.complex(st_l[2], st_l[3])
         for _ in range(iters):
-            sig = torch.istft((gl_mag * a).transpose(-2, -1), N_FFT, HOP, window=window)
-            reb = torch.stft(sig, N_FFT, HOP, window=window, center=True, pad_mode="reflect",
+            sig = torch.istft((mag_l * a).transpose(-2, -1), n_l, hop_l, window=w_l)
+            reb = torch.stft(sig, n_l, hop_l, window=w_l, center=True, pad_mode="reflect",
                              return_complex=True).transpose(-2, -1)
             u = reb - mom * tp
             a, tp = u / u.abs().clamp_min(1e-16), reb
         return a, tp
+
+    def lib_project_at(mag_l, st_l, n_l, hop_l, w_l):
+        """I's yardstick: torch.istft + torch.stft of mag * angles."""
+        sig = torch.istft((mag_l * torch.complex(st_l[0], st_l[1])).transpose(-2, -1), n_l, hop_l, window=w_l)
+        return torch.stft(sig, n_l, hop_l, window=w_l, center=True, pad_mode="reflect", return_complex=True)
 
     def bound_of(n_bytes, flops):
         t_b, t_o = n_bytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
@@ -6321,17 +6383,6 @@ def main() -> int:
                                    return_complex=True).abs())
         return v.sum(), (v * v).sum(), v.min(), v.max()
 
-    def lib_gl_g(iters):
-        a = torch.complex(g_st[0], g_st[1])
-        tp = torch.complex(g_st[2], g_st[3])
-        for _ in range(iters):
-            sig = torch.istft((mag_g * a).transpose(-2, -1), n_fft_g, hop_g, window=w_g)
-            reb = torch.stft(sig, n_fft_g, hop_g, window=w_g, center=True, pad_mode="reflect",
-                             return_complex=True).transpose(-2, -1)
-            u = reb - mom * tp
-            a, tp = u / u.abs().clamp_min(1e-16), reb
-        return a, tp
-
     # A's and B's smooth route at 768/192 (2^8 3) on the same clips, with
     # the square bank of that size: E's and F's smooth instances under the
     # taps' own window, frames_rfft<true>'s operations (smooth_design_flops);
@@ -6395,39 +6446,39 @@ def main() -> int:
     gl_res = gl_smooth_resources(_build.kernel_resources())
     res_c = next(v for k, v in gl_res.items() if "gl_step_fft_kernel" in k)
     res_j = next(v for k, v in gl_res.items() if "gl_fullk_fft_kernel" in k)
-    # C, D and I's product route at 896/224 (2^7 7) on the same clips
+    res_c7 = gl_k_seven_resources(_build.kernel_resources()).get("C")
+    # C, D and I's radix-7 instance at 896/224 (2^7 7) and product route at
+    # 1408/352 (2^7 11) on the same clips: the radix-7 rows as the smooth
+    # ones at 768/192 (smooth_design_flops at the plan's tile), the product
+    # rows that design's chunk products and taps conv, the chain's halo
+    # recomputed
     mag_gy = att.ops.stft(mono, n_fft_y, hop_y, w_y).abs()
+    mag_g11 = att.ops.stft(mono, n11, hop11, w11).abs()
     gy = torch.Generator(device=dev).manual_seed(args.seed + 56)
-    ph_y = 2 * math.pi * torch.rand(mag_gy.shape, generator=gy, device=dev)
-    y_st = (torch.cos(ph_y), torch.sin(ph_y), torch.zeros_like(ph_y), torch.zeros_like(ph_y))
-    del ph_y
+    y_st, x_st = [(torch.cos(ph), torch.sin(ph), torch.zeros_like(ph), torch.zeros_like(ph))
+                  for ph in (2 * math.pi * torch.rand(m.shape, generator=gy, device=dev) for m in (mag_gy, mag_g11))]
     env_y = glstep._env_rows(Ty, n_fft_y, hop_y, w_y)
+    env_11 = glstep._env_rows(T11, n11, hop11, w11)
     chain_y = glstep.gl_max_chain(n_fft_y, hop_y, 4)
-    require(glstep.gl_step_route(n_fft_y, hop_y) == "product" and glstep.gl_step_route(n_fft_g, hop_g) == "smooth"
-            and chain_g == chain_y == 4, "phase 5: C, D and I must be smooth at 768/192 and product at 896/224")
+    chain_11 = glstep.gl_max_chain(n11, hop11, 4)
+    require(glstep.gl_step_route(n_fft_y, hop_y) == "smooth" and glstep.gl_step_route(n_fft_g, hop_g) == "smooth"
+            and glstep.gl_step_route(n11, hop11) == "product" and chain_g == chain_y == chain_11 == 4,
+            "phase 5: C, D and I must be smooth at 768/192 and 896/224 (its radix-7 instance) and product at 1408/352")
     step1_y = glstep.make_gl_momentum_step(mag_gy, n_fft_y, hop_y, taps_y, w_y, mom)[0]
     step4_y = glstep.make_gl_momentum_step(mag_gy, n_fft_y, hop_y, taps_y, w_y, mom, iters=chain_y)[0]
+    step1_11 = glstep.make_gl_momentum_step(mag_g11, n11, hop11, taps11, w11, mom)[0]
+    step4_11 = glstep.make_gl_momentum_step(mag_g11, n11, hop11, taps11, w11, mom, iters=chain_11)[0]
     gl_bytes_y = 9.0 * 4 * el_y + 4.0 * (Ty + ov_y - 1) * hop_y
     gl_need_y = 2 * fft_y + B * Ty * (3.0 * n_fft_y + 12.0 * Fy)
-    gl_flops_y = (2 * 4.0 * B * (Ty + ov_y - 1) * hop_y * Fy + 2 * 8.0 * el_y * ov_y
-                  + 2 * 4.0 * el_y * (2 * len(taps_y) - 1) + 10.0 * el_y)
-    y_tile = glstep._pick_tile(Ty, chain_y, ov_y, hop_y)
-    gl_flops_y_chain = gl_flops_y * (y_tile + 2 * (ov_y - 1) * (chain_y - 1)) / y_tile
-
-    def lib_gl_y(iters):
-        a = torch.complex(y_st[0], y_st[1])
-        tp = torch.complex(y_st[2], y_st[3])
-        for _ in range(iters):
-            sig = torch.istft((mag_gy * a).transpose(-2, -1), n_fft_y, hop_y, window=w_y)
-            reb = torch.stft(sig, n_fft_y, hop_y, window=w_y, center=True, pad_mode="reflect",
-                             return_complex=True).transpose(-2, -1)
-            u = reb - mom * tp
-            a, tp = u / u.abs().clamp_min(1e-16), reb
-        return a, tp
-
-    def lib_project_y():
-        sig = torch.istft((mag_gy * torch.complex(y_st[0], y_st[1])).transpose(-2, -1), n_fft_y, hop_y, window=w_y)
-        return torch.stft(sig, n_fft_y, hop_y, window=w_y, center=True, pad_mode="reflect", return_complex=True)
+    cy_tile = glstep._step_fft_plan(n_fft_y, hop_y)[0]
+    cy_flops = (smooth_design_flops(n_fft_y, B * -(-Ty // cy_tile) * (cy_tile + 2 * ov_y))
+                + smooth_design_flops(n_fft_y, B * Ty) + 12.0 * el_y + 3.0 * B * (Ty + ov_y - 1) * hop_y)
+    gl_bytes_11 = 9.0 * 4 * el11 + 4.0 * (T11 + ov11 - 1) * hop11
+    gl_need_11 = 2 * fft11 + B * T11 * (3.0 * n11 + 12.0 * F11)
+    gl_flops_11 = (2 * 4.0 * B * (T11 + ov11 - 1) * hop11 * F11 + 2 * 8.0 * el11 * ov11
+                   + 2 * 4.0 * el11 * (2 * len(taps11) - 1) + 10.0 * el11)
+    tile_11 = glstep._pick_tile(T11, chain_11, ov11, hop11)
+    gl_flops_11_chain = gl_flops_11 * (tile_11 + 2 * (ov11 - 1) * (chain_11 - 1)) / tile_11
 
     specs = [
         dict(key="A", name="fused_melspec", front_end="fft",
@@ -6524,7 +6575,7 @@ def main() -> int:
              run=lambda: step1(*gl_state),
              plain=lambda: glstep.gl_momentum_step_reference(
                  gl_mag, *gl_state, gl_env, N_FFT, HOP, taps_main, mom, 1),
-             library=lambda: lib_gl(1),
+             library=lambda: lib_gl_at(gl_mag, gl_state, N_FFT, HOP, window, 1),
              bound=bound_of(gl_bytes, gl_need),
              ceiling=ceiling_of(c_flops)),
         dict(key="C_smooth", name="gl_momentum_step_smooth", front_end="smooth",
@@ -6533,14 +6584,23 @@ def main() -> int:
              launches=counts["gl_momentum_step:smooth"],
              run=lambda: step1_g(*g_st),
              plain=lambda: glstep.gl_momentum_step_reference(mag_g, *g_st, env_g, n_fft_g, hop_g, taps_g, mom, 1),
-             library=lambda: lib_gl_g(1), bound=bound_of(gl_bytes_g, gl_need_g), ceiling=ceiling_of(cg_flops),
-             resources=res_c),
+             library=lambda: lib_gl_at(mag_g, g_st, n_fft_g, hop_g, w_g, 1), bound=bound_of(gl_bytes_g, gl_need_g),
+             ceiling=ceiling_of(cg_flops), resources=res_c),
+        dict(key="C_smooth7", name="gl_momentum_step_smooth7", front_end="smooth",
+             source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/glstep.py:294",
+             launches=counts["gl_momentum_step:smooth7"],
+             run=lambda: step1_y(*y_st),
+             plain=lambda: glstep.gl_momentum_step_reference(mag_gy, *y_st, env_y, n_fft_y, hop_y, taps_y, mom, 1),
+             library=lambda: lib_gl_at(mag_gy, y_st, n_fft_y, hop_y, w_y, 1), bound=bound_of(gl_bytes_y, gl_need_y),
+             ceiling=ceiling_of(cy_flops), resources=res_c7),
         dict(key="C_product", name="gl_momentum_step_product", front_end="product",
              source="acids_transforms_tpu_torch/csrc/glstep.cu", replaces="acids_transforms_tpu/ops/pallas/glstep.py:294",
              launches=counts["gl_momentum_step:product"],
-             run=lambda: step1_y(*y_st),
-             plain=lambda: glstep.gl_momentum_step_reference(mag_gy, *y_st, env_y, n_fft_y, hop_y, taps_y, mom, 1),
-             library=lambda: lib_gl_y(1), bound=bound_of(gl_bytes_y, gl_need_y), ceiling=ceiling_of(gl_flops_y)),
+             run=lambda: step1_11(*x_st),
+             plain=lambda: glstep.gl_momentum_step_reference(mag_g11, *x_st, env_11, n11, hop11, taps11, mom, 1),
+             library=lambda: lib_gl_at(mag_g11, x_st, n11, hop11, w11, 1), bound=bound_of(gl_bytes_11, gl_need_11),
+             ceiling=ceiling_of(gl_flops_11)),
         dict(key="D", name="gl_momentum_chain", front_end="fft",
              source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:326",
@@ -6548,7 +6608,7 @@ def main() -> int:
              run=lambda: step4(*gl_state),
              plain=lambda: glstep.gl_momentum_step_reference(
                  gl_mag, *gl_state, gl_env, N_FFT, HOP, taps_main, mom, 4),
-             library=lambda: lib_gl(4),
+             library=lambda: lib_gl_at(gl_mag, gl_state, N_FFT, HOP, window, 4),
              bound=bound_of(gl_bytes, 4 * gl_need),
              ceiling=ceiling_of(4 * c_flops)),
         dict(key="D_smooth", name="gl_momentum_chain_smooth", front_end="smooth",
@@ -6558,16 +6618,27 @@ def main() -> int:
              run=lambda: step4_g(*g_st),
              plain=lambda: glstep.gl_momentum_step_reference(mag_g, *g_st, env_g, n_fft_g, hop_g, taps_g, mom,
                                                              chain_g),
-             library=lambda: lib_gl_g(chain_g), bound=bound_of(gl_bytes_g, chain_g * gl_need_g),
+             library=lambda: lib_gl_at(mag_g, g_st, n_fft_g, hop_g, w_g, chain_g),
+             bound=bound_of(gl_bytes_g, chain_g * gl_need_g),
              ceiling=ceiling_of(chain_g * cg_flops), resources=res_c),
-        dict(key="D_product", name="gl_momentum_chain_product", front_end="product",
-             source="acids_transforms_tpu_torch/csrc/glstep.cu", replaces="acids_transforms_tpu/ops/pallas/glstep.py:326",
-             launches=counts["gl_momentum_chain:product"],
+        dict(key="D_smooth7", name="gl_momentum_chain_smooth7", front_end="smooth",
+             source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/glstep.py:326",
+             launches=counts["gl_momentum_chain:smooth7"],
              run=lambda: step4_y(*y_st),
              plain=lambda: glstep.gl_momentum_step_reference(mag_gy, *y_st, env_y, n_fft_y, hop_y, taps_y, mom,
                                                              chain_y),
-             library=lambda: lib_gl_y(chain_y), bound=bound_of(gl_bytes_y, chain_y * gl_need_y),
-             ceiling=ceiling_of(chain_y * gl_flops_y_chain)),
+             library=lambda: lib_gl_at(mag_gy, y_st, n_fft_y, hop_y, w_y, chain_y),
+             bound=bound_of(gl_bytes_y, chain_y * gl_need_y), ceiling=ceiling_of(chain_y * cy_flops),
+             resources=res_c7),
+        dict(key="D_product", name="gl_momentum_chain_product", front_end="product",
+             source="acids_transforms_tpu_torch/csrc/glstep.cu", replaces="acids_transforms_tpu/ops/pallas/glstep.py:326",
+             launches=counts["gl_momentum_chain:product"],
+             run=lambda: step4_11(*x_st),
+             plain=lambda: glstep.gl_momentum_step_reference(mag_g11, *x_st, env_11, n11, hop11, taps11, mom,
+                                                             chain_11),
+             library=lambda: lib_gl_at(mag_g11, x_st, n11, hop11, w11, chain_11),
+             bound=bound_of(gl_bytes_11, chain_11 * gl_need_11), ceiling=ceiling_of(chain_11 * gl_flops_11_chain)),
     ]
     # ---- the DGT path's kernels.  E and F: the same function as A and B
     # under another window (no mel), so the same bound.  On the main path they
@@ -7042,15 +7113,6 @@ def main() -> int:
     i_bytes = 5.0 * 4 * B * Tn * F + 4.0 * (Tn + ov - 1) * HOP
     i_need = 2 * fft_flops + B * Tn * (3.0 * N_FFT + 2.0 * F)
 
-    def lib_project():
-        sig = torch.istft((gl_mag * torch.complex(*i_state)).transpose(-2, -1), N_FFT, HOP, window=window)
-        return torch.stft(sig, N_FFT, HOP, window=window, center=True, pad_mode="reflect",
-                          return_complex=True)
-
-    def lib_project_g():
-        sig = torch.istft((mag_g * torch.complex(g_st[0], g_st[1])).transpose(-2, -1), n_fft_g, hop_g, window=w_g)
-        return torch.stft(sig, n_fft_g, hop_g, window=w_g, center=True, pad_mode="reflect", return_complex=True)
-
     # J at the D' shape: the DGT target magnitudes and a random state;
     # bytes and operations as C's (nine arrays; two FFTs and the momentum).
     # Its FFT route runs, per block of tile_t frames, frames_irfft of tile_t
@@ -7260,24 +7322,37 @@ def main() -> int:
              launches=counts["gl_project:fft"],
              run=lambda: glstep.gl_project(gl_mag, *i_state, N_FFT, HOP, taps_main, window),
              plain=lambda: glstep.gl_project_reference(gl_mag, *i_state, N_FFT, HOP, taps_main, window),
-             library=lib_project, bound=bound_of(i_bytes, i_need), ceiling=ceiling_of(c_flops - 10.0 * n_el)),
+             library=lambda: lib_project_at(gl_mag, i_state, N_FFT, HOP, window), bound=bound_of(i_bytes, i_need),
+             ceiling=ceiling_of(c_flops - 10.0 * n_el)),
         dict(key="I_smooth", name="gl_project_smooth", front_end="smooth",
              source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:236",
              launches=counts["gl_project:smooth"],
              run=lambda: glstep.gl_project(mag_g, g_st[0], g_st[1], n_fft_g, hop_g, taps_g, w_g),
              plain=lambda: glstep.gl_project_reference(mag_g, g_st[0], g_st[1], n_fft_g, hop_g, taps_g, w_g),
-             library=lib_project_g, bound=bound_of(5.0 * 4 * el_g + 4.0 * (Tg + ov_g - 1) * hop_g,
-                                                   2 * fft_g + B * Tg * (3.0 * n_fft_g + 2.0 * Fg)),
+             library=lambda: lib_project_at(mag_g, g_st, n_fft_g, hop_g, w_g),
+             bound=bound_of(5.0 * 4 * el_g + 4.0 * (Tg + ov_g - 1) * hop_g,
+                            2 * fft_g + B * Tg * (3.0 * n_fft_g + 2.0 * Fg)),
              ceiling=ceiling_of(cg_flops - 10.0 * el_g), resources=res_c),
+        dict(key="I_smooth7", name="gl_project_smooth7", front_end="smooth",
+             source="acids_transforms_tpu_torch/csrc/glstep.cu (+ csrc/fft_smem.cuh)",
+             replaces="acids_transforms_tpu/ops/pallas/glstep.py:236",
+             launches=counts["gl_project:smooth7"],
+             run=lambda: glstep.gl_project(mag_gy, y_st[0], y_st[1], n_fft_y, hop_y, taps_y, w_y),
+             plain=lambda: glstep.gl_project_reference(mag_gy, y_st[0], y_st[1], n_fft_y, hop_y, taps_y, w_y),
+             library=lambda: lib_project_at(mag_gy, y_st, n_fft_y, hop_y, w_y),
+             bound=bound_of(5.0 * 4 * el_y + 4.0 * (Ty + ov_y - 1) * hop_y,
+                            2 * fft_y + B * Ty * (3.0 * n_fft_y + 2.0 * Fy)),
+             ceiling=ceiling_of(cy_flops - 10.0 * el_y), resources=res_c7),
         dict(key="I_product", name="gl_project_product", front_end="product",
              source="acids_transforms_tpu_torch/csrc/glstep.cu", replaces="acids_transforms_tpu/ops/pallas/glstep.py:236",
              launches=counts["gl_project:product"],
-             run=lambda: glstep.gl_project(mag_gy, y_st[0], y_st[1], n_fft_y, hop_y, taps_y, w_y),
-             plain=lambda: glstep.gl_project_reference(mag_gy, y_st[0], y_st[1], n_fft_y, hop_y, taps_y, w_y),
-             library=lib_project_y, bound=bound_of(5.0 * 4 * el_y + 4.0 * (Ty + ov_y - 1) * hop_y,
-                                                   2 * fft_y + B * Ty * (3.0 * n_fft_y + 2.0 * Fy)),
-             ceiling=ceiling_of(gl_flops_y - 10.0 * el_y)),
+             run=lambda: glstep.gl_project(mag_g11, x_st[0], x_st[1], n11, hop11, taps11, w11),
+             plain=lambda: glstep.gl_project_reference(mag_g11, x_st[0], x_st[1], n11, hop11, taps11, w11),
+             library=lambda: lib_project_at(mag_g11, x_st, n11, hop11, w11),
+             bound=bound_of(5.0 * 4 * el11 + 4.0 * (T11 + ov11 - 1) * hop11,
+                            2 * fft11 + B * T11 * (3.0 * n11 + 2.0 * F11)),
+             ceiling=ceiling_of(gl_flops_11 - 10.0 * el11)),
         dict(key="J", name="gl_momentum_fullk", front_end="fft",
              source="acids_transforms_tpu_torch/csrc/glstep_fullk.cu (+ csrc/fft_smem.cuh)",
              replaces="acids_transforms_tpu/ops/pallas/glstep.py:571",
@@ -8271,12 +8346,13 @@ def main() -> int:
     # C, D, I and J at 768 on the product instance against the smooth one, in
     # turns (reported, not gated): what the smooth route changed
     turns = gl_route_turns(mono, args.repeats)
-    log("  GL product vs smooth instance at 768/192 (C, D, I) and 768/256 (J), in turns product, smooth, smooth, "
-        "product (b2b ms): " + "; ".join(
+    log("  GL product vs smooth instance at 768/192 (C, D, I) and 768/256 (J), vs the radix-7 instance at 896/224 "
+        "(C7, D7, I7), in turns product, smooth, smooth, product (b2b ms): " + "; ".join(
             f"{k} {' / '.join(f'{v:.3f}' for v in turns[('product', k)])} -> "
-            f"{' / '.join(f'{v:.3f}' for v in turns[('smooth', k)])}" for k in "CDIJ"))
-    # C and J on the smooth route under every plan, J on its radix-7
-    # instance too (reported, not gated)
+            f"{' / '.join(f'{v:.3f}' for v in turns[('smooth', k)])}"
+            for k in ("C", "D", "I", "J", "C7", "D7", "I7")))
+    # C and J on the smooth route and its radix-7 instance under every plan
+    # (reported, not gated)
     for label, r in gl_plan_sweep(mono, args.repeats).items():
         log(f"  GL smooth plan sweep {label} (b2b ms; frames x FFTs): " + "; ".join(
             f"{p['tile']} x {p['teams']} {p['ms']:.3f}" for p in r["rows"])
@@ -8346,7 +8422,8 @@ def main() -> int:
                 (spectral, glstep, pghi_kernel, ss))
     # every row's kernel ran on a path of this run, except I's (no caller)
     idle = [r["name"] for r in kernels
-            if r["launches"] < 1 and r["name"] not in ("gl_project", "gl_project_smooth", "gl_project_product")]
+            if r["launches"] < 1 and r["name"] not in ("gl_project", "gl_project_smooth", "gl_project_smooth7",
+                                                       "gl_project_product")]
     require(not idle, f"kernels launched no time on their paths: {idle}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

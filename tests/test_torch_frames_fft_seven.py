@@ -19,8 +19,8 @@ with the kernel's kind and hop).
   within 1e-4 of the largest value and against the float64 session oracle
   within 1e-5;
 * the route rule: R, L and the decodes on the smooth route at every even
-  7-smooth shape their blocks fit, O's polish and the other kernels on their
-  product routes there, the four 4032 roundtrip shapes whose smooth block
+  7-smooth shape their blocks fit, O's polish and the other kernels on
+  their radix-7 instances there too, the four 4032 roundtrip shapes whose smooth block
   does not fit on the product; every shape the encode, roundtrip and decode
   gates took before still taken; no route counted on the CPU
   (``tests/test_torch_stream_decode_seven.py`` holds the decodes' plain
@@ -263,7 +263,7 @@ def test_l_and_m_at_other_overlaps_vs_oracle(n, hop):
 
 def test_route_rule():
     """R, L and the decodes smooth at the 7-smooth shapes; the polish and the
-    other kernels on their product routes there; 4032's four large-overlap
+    other kernels on their radix-7 instances there too; 4032's four large-overlap
     roundtrips on the product; the plans."""
     for n, hop in SESSION_SHAPES + [(1792, 448), (1680, 420), (1764, 588)]:
         assert PK.session_route(n, "encode") == "smooth" and PK.session_route(n, "roundtrip", hop) == "smooth"
@@ -272,11 +272,11 @@ def test_route_rule():
         assert PK.session_route(n, "polish") == "smooth" and PK.session_route(n, "decode", hop) == "smooth"
         assert PK._decode_plan(n, hop)[1] > 0 and PK._decode_plan(n, hop, PK.PROJECT_SYN_ROWS)[1] > 0
         assert PK._polish_plan(n, hop, 20) is not None
-    # the Griffin-Lim steps C, D and I keep fft_covers_smooth: their product route at 896/224 and
-    # 1344/336 (E, F, A, B, G, H, K's synthesis and J take their radix-7 instance there)
+    # E, F, A, B, G, H, K's synthesis, J and the Griffin-Lim steps C, D and I take their radix-7
+    # instance at 896/224 and 1344/336 too
     for n, hop in SESSION_SHAPES:
         assert SP.melspec_route(n) == "smooth"
-        assert GS.gl_step_route(n, hop) == "product" and PGK.synth_route(n, hop) == "smooth"
+        assert GS.gl_step_route(n, hop) == "smooth" and PGK.synth_route(n, hop) == "smooth"
     assert SP._kernel_plan(896, 224, None)[1] > 0 and SP._repr_plan(896, 224, None, False, "if", True)[1] > 0
     assert GS._fullk_plan(896, 224)[0] == "smooth"
     for n, hop in PRODUCT_4032:

@@ -7,8 +7,9 @@ true>`` (``frames_irfft<true, true>`` / ``frames_rfft<true, true>``, a
 radix-7 stage first), whose plain versions are
 ``glstep.gl_momentum_step_fullk_reference`` and
 ``pghi_kernel.pghi_synthesize_fused_reference`` on the smooth schedule.  C,
-D and I (``glstep.gl_step_route``) and O's polish keep their routes there;
-1408 = 2^7 11 keeps J's and K's product routes.  ``chip_smoke.py`` holds the
+D and I (``glstep.gl_step_route``) take their radix-7 instance there too
+(``tests/test_torch_glstep_seven.py``) and O's polish its own; 1408 = 2^7 11
+keeps the product routes of J, K, C, D and I.  ``chip_smoke.py`` holds the
 kernels to these plain versions on the card.
 
 Tolerances, and why:
@@ -128,14 +129,17 @@ def test_the_plans_read_the_blocks_the_registers_allow(monkeypatch):
 
 
 def test_other_kernels_keep_their_routes():
-    """C, D and I keep the product route (and its chain limit) at 896/224
-    and 1344/336 (O's polish takes its radix-7 instance there); J and K's
-    synthesis keep the product route at 1408/352 (2^7 11)."""
+    """C, D and I take their radix-7 instance at 896/224 and 1344/336 (any
+    chain), as O's polish and K's synthesis do; J, K's synthesis, C, D and I
+    keep the product route (C, D and I its chain limit) at 1408/352 (2^7
+    11)."""
     for n, hop in ((896, 224), (1344, 336)):
-        assert PG.gl_step_route(n, hop) == "product" and PG._step_fft_plan(n, hop) is None
+        assert PG.gl_step_route(n, hop) == "smooth" and PG._step_fft_plan(n, hop) is not None
         assert SS.session_route(n, "polish") == "smooth"
         assert PK.synth_route(n, hop) == "smooth"
-    assert PG.gl_max_chain(896, 224, 64) == 22 and PG.gl_max_chain(1344, 336, 64) == 14
+        assert PG.gl_max_chain(n, hop, 64) == 64
+    assert PG.gl_step_route(1408, 352) == "product" and PG._step_fft_plan(1408, 352) is None
+    assert PG.gl_max_chain(1408, 352, 64) == 13 and PG.gl_max_chain(1408, 352, 4) == 4
     assert PG._fullk_plan(1344, 192)[0] == "smooth" and PG._fullk_plan(896, 224)[0] == "smooth"
     assert PG._fullk_plan(1408, 352)[0] == "product" and PK.synth_route(1408, 352) == "product"
     assert PG._pick_fullk_fft_block(1408, 352) is None and PK._synth_fft_plan(1408, 352) is None

@@ -6,9 +6,10 @@
 ``frames_irfft<true>`` / ``frames_rfft<true>``), whose plain versions are
 ``ops/cuda/glstep.py:_project_fft(..., smooth=True)`` and
 ``gl_momentum_step_fullk_reference`` on the smooth schedule.  At 896 = 2^7 7
-and 448 = 2^6 7 C, D and I keep the product route and J takes its radix-7
-instance (``tests/test_torch_gl_pghi_seven.py``).  ``chip_smoke.py`` holds
-the kernels to these plain versions on the card.
+and 448 = 2^6 7 C, D, I and J take their radix-7 instances
+(``tests/test_torch_glstep_seven.py``, ``tests/test_torch_gl_pghi_seven.py``)
+and at 1408 = 2^7 11 the product routes.  ``chip_smoke.py`` holds the
+kernels to these plain versions on the card.
 
 Tolerances, and why:
 
@@ -270,17 +271,17 @@ def test_the_plain_versions_take_the_smooth_schedule():
 
 def test_the_route_reads_n_fft_and_hop():
     """Per kernel: C, D and I smooth at 768 (and every even 5-smooth n_fft
-    the gates take), product at 896 and 448 (2^k 7), fft at 512, any chain
-    off the product route; J likewise, but smooth at 896 and 448 too (its
-    radix-7 instance) and product at 1408 (2^7 11)."""
+    the gates take) and at 896 and 448 (2^k 7: their radix-7 instance),
+    product at 1408 (2^7 11), fft at 512, any chain off the product route;
+    J likewise."""
     for n_fft, hop, route_cdi, route_j in ((768, 192, "smooth", "smooth"), (768, 256, "smooth", "smooth"),
-                                           (896, 224, "product", "smooth"), (448, 112, "product", "smooth"),
+                                           (896, 224, "smooth", "smooth"), (448, 112, "smooth", "smooth"),
                                            (1408, 352, "product", "product"), (512, 128, "fft", "fft"),
                                            (1024, 256, "fft", "fft")):
         assert pk.gl_step_route(n_fft, hop) == route_cdi, (n_fft, hop)
         assert (pk.gl_max_chain(n_fft, hop, 64) == 64) == (route_cdi != "product")
         assert pk._fullk_plan(n_fft, hop)[0] == route_j, (n_fft, hop)
-    assert pk._step_fft_plan(896, 224) is None and pk._pick_fullk_fft_block(896, 224) == (28, 24, 4)
+    assert pk._step_fft_plan(896, 224) == (24, 4) and pk._pick_fullk_fft_block(896, 224) == (28, 24, 4)
     assert pk._step_fft_plan(1408, 352) is None and pk._pick_fullk_fft_block(1408, 352) is None
     assert pk._step_fft_plan(768, 192) == (56, 4) and pk._fullk_plan(768, 256) == ("smooth", 15, 12, 4)
     n_shapes = 0
